@@ -1,0 +1,246 @@
+// Whole-request LSTM serve kernel for Hopper (sm_90a), exact f32.
+//
+// Replaces the TPU Pallas kernel
+//   longterm360fov_tpu/ops/fused_lstm.py::fused_serve / _serve_kernel
+// in its no-context f32 tier. One launch runs the whole request:
+//   * the L-layer encoder over T_in steps, from zero state;
+//   * T_out autoregressive decoder steps. Decoder layer l starts from the
+//     encoder's final (h, c) of layer l; the layer-0 input is the previous
+//     output y, starting from y0 = past_n[:, T_in - 1];
+//   * y = h_top @ proj_w + proj_b after every decoder step, fed back.
+// Input past_n (B, T_in, D) and output (B, T_out, D) are read and written
+// in that layout; a ragged last block is masked.
+//
+// What bounds it on the card:
+//   * Arithmetic. Every layer-step is a (R x in+H) @ (in+H x 4H) product:
+//     2.1 TFLOP per call at B = 262144, D = 3, H = 128, 30 + 30 steps. In
+//     exact f32 (no TF32, no fast math) that runs on the FMA units, whose
+//     peak is 67 TFLOP/s.
+//   * Weight traffic. One layer's W is (3 + 128) x 512 x 4 = 268 KB, more
+//     than the 227 KB of shared memory a block can have, so W is read from
+//     global memory every step. All blocks read the same matrices, so W stays
+//     in L2. At R = 64 rows per block every W byte brought from L2 feeds
+//     32 FLOP, about 66 GB of L2 reads per call at B = 262144: far below
+//     what L2 delivers in the time the FMAs take.
+//   * The recurrence. The 60 steps are serial inside a block.
+// What the design does about it:
+//   * Each thread owns TR = 8 rows x TJ = 4 hidden units and computes all four
+//     gates of them: 128 accumulators in registers. Per k it loads one float4
+//     of W per gate (16-byte coalesced loads; each W element is reused for 8
+//     rows, and across the block's warps through L1) and two float4 of the
+//     packed input (a broadcast from shared memory), then issues 128 FMAs.
+//   * A thread owns the same (row, unit) pairs in every step, so the gate
+//     nonlinearities and the cell update need no exchange: c of every layer
+//     sits in shared memory that only its owner thread touches.
+//   * h of every layer sits in shared memory, k-major (H, R), so the product
+//     reads it as [x, h] without a concat; it is overwritten in place after a
+//     barrier. Between steps nothing goes to device memory except W reads,
+//     x_t in and y_t out. Rows are independent, so blocks share nothing.
+
+#include <cuda_runtime.h>
+
+#define MAX_LAYERS 8
+#define TR 8  // rows per thread
+#define TJ 4  // hidden units per thread: one float4 of each gate's columns
+
+struct Weights {
+  const float* w_enc[MAX_LAYERS];  // (in_l + H, 4H), gate order i, f, g, o
+  const float* b_enc[MAX_LAYERS];  // (4H,)
+  const float* w_dec[MAX_LAYERS];
+  const float* b_dec[MAX_LAYERS];
+  const float* proj_w;  // (H, D)
+  const float* proj_b;  // (D,)
+};
+
+__device__ __forceinline__ float sigmoid_f32(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// acc[g][r][j] += sum_k z[k][r0 + r] * W[k][g * H + j0 + j] for k < K.
+// z is k-major (K, R) in shared memory; W rows are 4H long.
+__device__ __forceinline__ void accumulate(float (&acc)[4][TR][TJ],
+                                           const float* z, int K,
+                                           const float* __restrict__ W,
+                                           int H, int R, int r0, int j0) {
+  const int G = 4 * H;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(z + k * R + r0);
+    const float4 a1 = *reinterpret_cast<const float4*>(z + k * R + r0 + 4);
+    const float a[TR] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float* wk = W + (size_t)k * G + j0;
+    float w[4][TJ];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(wk + g * H));
+      w[g][0] = v.x;
+      w[g][1] = v.y;
+      w[g][2] = v.z;
+      w[g][3] = v.w;
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int r = 0; r < TR; ++r)
+#pragma unroll
+        for (int j = 0; j < TJ; ++j)
+          acc[g][r][j] = fmaf(a[r], w[g][j], acc[g][r][j]);
+  }
+}
+
+// One layer-step for the block's R rows:
+//   gates = [in, h] @ W + b;  c = f * c + i * g;  h = o * tanh(c).
+// in: (k_in, R) layer input; h: (H, R) this layer's hidden state, read and
+// then overwritten; c: this layer's cell state, owner-private layout
+// [TR * TJ][nthr].
+__device__ __forceinline__ void lstm_layer_step(
+    const float* in, int k_in, float* h, float* c,
+    const float* __restrict__ W, const float* __restrict__ bias, int H, int R,
+    int r0, int j0, int tid, int nthr) {
+  float acc[4][TR][TJ];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int r = 0; r < TR; ++r)
+#pragma unroll
+      for (int j = 0; j < TJ; ++j) acc[g][r][j] = 0.0f;
+  accumulate(acc, in, k_in, W, H, R, r0, j0);
+  accumulate(acc, h, H, W + (size_t)k_in * 4 * H, H, R, r0, j0);
+  __syncthreads();  // every thread is done reading h (and in) of this step
+
+  float b[4][TJ];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(bias + g * H + j0));
+    b[g][0] = v.x;
+    b[g][1] = v.y;
+    b[g][2] = v.z;
+    b[g][3] = v.w;
+  }
+#pragma unroll
+  for (int r = 0; r < TR; ++r)
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) {
+      const float i_g = sigmoid_f32(acc[0][r][j] + b[0][j]);
+      const float f_g = sigmoid_f32(acc[1][r][j] + b[1][j]);
+      const float g_g = tanhf(acc[2][r][j] + b[2][j]);
+      const float o_g = sigmoid_f32(acc[3][r][j] + b[3][j]);
+      const int idx = (r * TJ + j) * nthr + tid;
+      const float c_new = f_g * c[idx] + i_g * g_g;
+      c[idx] = c_new;
+      h[(j0 + j) * R + r0 + r] = o_g * tanhf(c_new);
+    }
+  __syncthreads();  // the new h is visible to the next layer and step
+}
+
+// x[d][r] = past[row0 + r, t, d] for the block's rows; 0 past the batch end.
+__device__ __forceinline__ void load_step(float* x,
+                                          const float* __restrict__ past,
+                                          long long row0, int B, int T_in,
+                                          int t, int D, int R, int tid,
+                                          int nthr) {
+  for (int i = tid; i < R * D; i += nthr) {
+    const int r = i / D, d = i % D;
+    const long long row = row0 + r;
+    x[d * R + r] = row < B ? past[(row * T_in + t) * D + d] : 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(256)
+    fused_serve_kernel(const float* __restrict__ past, float* __restrict__ out,
+                       const Weights wts, int B, int T_in, int T_out, int D,
+                       int H, int L, int R) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int j0 = (tid % (H / TJ)) * TJ;
+  const int r0 = (tid / (H / TJ)) * TR;
+  const int HR = H * R;
+  float* h_s = smem;           // L x (H, R)
+  float* c_s = h_s + L * HR;   // L x (TR * TJ, nthr): the same H * R floats
+  float* x_s = c_s + L * HR;   // (D, R) layer-0 input: x_t, then y_{t-1}
+  const long long row0 = (long long)blockIdx.x * R;
+
+  for (int i = tid; i < 2 * L * HR; i += nthr) smem[i] = 0.0f;
+
+  for (int t = 0; t < T_in; ++t) {
+    load_step(x_s, past, row0, B, T_in, t, D, R, tid, nthr);
+    __syncthreads();
+    for (int l = 0; l < L; ++l)
+      lstm_layer_step(l == 0 ? x_s : h_s + (l - 1) * HR, l == 0 ? D : H,
+                      h_s + l * HR, c_s + l * HR, wts.w_enc[l], wts.b_enc[l],
+                      H, R, r0, j0, tid, nthr);
+  }
+
+  // the decoder starts from the encoder's final (h, c) of every layer, which
+  // stay where they are, and from the last observed position
+  load_step(x_s, past, row0, B, T_in, T_in - 1, D, R, tid, nthr);
+  __syncthreads();
+  const float* h_top = h_s + (L - 1) * HR;
+  for (int t = 0; t < T_out; ++t) {
+    for (int l = 0; l < L; ++l)
+      lstm_layer_step(l == 0 ? x_s : h_s + (l - 1) * HR, l == 0 ? D : H,
+                      h_s + l * HR, c_s + l * HR, wts.w_dec[l], wts.b_dec[l],
+                      H, R, r0, j0, tid, nthr);
+    // y = h_top @ proj_w + proj_b becomes the next step's layer-0 input;
+    // layer 0 of this step read x_s before its first barrier
+    for (int i = tid; i < R * D; i += nthr) {
+      const int r = i / D, d = i % D;
+      float y = 0.0f;
+      for (int k = 0; k < H; ++k)
+        y = fmaf(h_top[k * R + r], __ldg(wts.proj_w + k * D + d), y);
+      y += __ldg(wts.proj_b + d);
+      x_s[d * R + r] = y;
+      const long long row = row0 + r;
+      if (row < B) out[(row * T_out + t) * D + d] = y;
+    }
+    __syncthreads();
+  }
+}
+
+extern "C" {
+
+// Launches the kernel on `stream` and returns cudaGetLastError() (0 = ok).
+// The pointer arrays hold `layers` device pointers each; `rows` is the
+// batch rows per block (a multiple of TR), so the block has
+// (rows / TR) * (hidden / TJ) threads and
+// (2 * layers * hidden + d) * rows floats of dynamic shared memory.
+int fused_serve_f32(const void* past, void* out, const void* const* w_enc,
+                    const void* const* b_enc, const void* const* w_dec,
+                    const void* const* b_dec, const void* proj_w,
+                    const void* proj_b, int batch, int t_in, int t_out, int d,
+                    int hidden, int layers, int rows, void* stream) {
+  if (layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
+      rows < TR || rows % TR || batch < 1 || t_in < 1 || t_out < 1 || d < 1)
+    return (int)cudaErrorInvalidValue;
+  const int threads = (rows / TR) * (hidden / TJ);
+  if (threads > 256) return (int)cudaErrorInvalidValue;
+  Weights w;
+  for (int l = 0; l < layers; ++l) {
+    w.w_enc[l] = static_cast<const float*>(w_enc[l]);
+    w.b_enc[l] = static_cast<const float*>(b_enc[l]);
+    w.w_dec[l] = static_cast<const float*>(w_dec[l]);
+    w.b_dec[l] = static_cast<const float*>(b_dec[l]);
+  }
+  for (int l = layers; l < MAX_LAYERS; ++l)
+    w.w_enc[l] = w.b_enc[l] = w.w_dec[l] = w.b_dec[l] = nullptr;
+  w.proj_w = static_cast<const float*>(proj_w);
+  w.proj_b = static_cast<const float*>(proj_b);
+  const size_t smem =
+      ((size_t)2 * layers * hidden * rows + (size_t)d * rows) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_serve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (batch + rows - 1) / rows;
+  fused_serve_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(past), static_cast<float*>(out), w, batch,
+      t_in, t_out, d, hidden, layers, rows);
+  return (int)cudaGetLastError();
+}
+
+const char* fused_serve_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,151 @@
+"""Inference runtime: batched autoregressive decode + tile prefetch.
+
+PyTorch twin of ``longterm360fov_tpu.infer``: many viewers' recent
+head-pose windows go in, per-viewer predicted trajectories and prefetch tile
+sets come out. normalize → encode → H_out-step decode → denormalize →
+(tile mask) runs on the device of the params; the ``"fused"`` impl does the
+encode and decode in one CUDA kernel launch, the ``"plain"`` impl step by
+step in PyTorch.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict
+
+import torch
+
+from . import geometry, windows
+from .config import ExperimentConfig
+from .models import get_family
+
+__all__ = [
+    "predict_xyz",
+    "make_predict_fn",
+    "tile_centers",
+    "tiles_for_fov",
+    "tile_of",
+    "prefetch_accuracy",
+]
+
+IMPLS = ("fused", "plain")
+
+
+def predict_xyz(params, cfg: ExperimentConfig, fam, batch: Dict, *, impl: str):
+    """Shared serve core: ``batch`` {"past": (B, H_in, 3) raw xyz, and an
+    optional per-viewer "context"} of tensors → (B, H_out, 3) predicted unit
+    vectors. ``impl`` is one of ``IMPLS``, as ``make_predict_fn`` and
+    ``serving.make_serve_fn`` check."""
+    past_n, _, anchor = windows.normalize_window(batch["past"])
+    # the result keeps the input's strides (np.concatenate of (1, T, 3)
+    # rows may give a column-major batch); the kernel reads rows in place
+    past_n = past_n.contiguous()
+    kwargs = {"context": batch["context"]} if "context" in batch else {}
+    if impl == "fused":
+        pred_n = fam.serve_fused(params, cfg.model, past_n, **kwargs)
+    else:
+        pred_n = fam.apply(params, cfg.model, past_n, None, **kwargs)
+    return windows.denormalize_window(pred_n, anchor, to_sphere=True)
+
+
+def make_predict_fn(
+    params, cfg: ExperimentConfig, *, device, with_tiles: bool = False,
+    tile_rows: int = 6, tile_cols: int = 12, fov_deg: float = 90.0,
+    impl: str = "fused",
+) -> Callable:
+    """Close over params/config → ``serve(past, context=None)``.
+
+    ``past`` is a (B, H_in, 3) array or tensor of raw xyz windows; it is
+    moved to ``device``, where ``params`` must already be. Returns the
+    (B, H_out, 3) predicted xyz, and with ``with_tiles`` also the
+    (B, H_out, R*C) per-step prefetch mask."""
+    device = torch.device(device)
+    fam = get_family(cfg.model_family)
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+    @torch.inference_mode()
+    def serve(past, context=None):
+        batch = {"past": torch.as_tensor(past, dtype=torch.float32, device=device)}
+        if context is not None:
+            batch["context"] = torch.as_tensor(
+                context, dtype=torch.float32, device=device
+            )
+        xyz = predict_xyz(params, cfg, fam, batch, impl=impl)
+        if not with_tiles:
+            return xyz
+        return xyz, tiles_for_fov(
+            xyz, tile_rows=tile_rows, tile_cols=tile_cols, fov_deg=fov_deg
+        )
+
+    return serve
+
+
+def tile_centers(tile_rows: int, tile_cols: int, *, device) -> torch.Tensor:
+    """Unit-vector centers of an equirectangular tile grid, (R*C, 3).
+
+    Row r spans pitch (pi/2 - r·pi/R ...), col c spans yaw; centers sit
+    mid-tile."""
+    r = torch.arange(tile_rows, dtype=torch.float32, device=device) + 0.5
+    c = torch.arange(tile_cols, dtype=torch.float32, device=device) + 0.5
+    pitch = math.pi / 2 - r / tile_rows * math.pi  # (R,) top→bottom
+    yaw = -math.pi + c / tile_cols * 2 * math.pi  # (C,)
+    yy, pp = torch.meshgrid(yaw, pitch, indexing="xy")  # (R, C)
+    return geometry.euler_to_xyz(yy.reshape(-1), pp.reshape(-1))  # (R*C, 3)
+
+
+def tiles_for_fov(
+    pred_xyz: torch.Tensor,
+    *,
+    tile_rows: int = 6,
+    tile_cols: int = 12,
+    fov_deg: float = 90.0,
+) -> torch.Tensor:
+    """Prefetch mask: which tiles the predicted viewport may touch.
+
+    pred_xyz: (..., 3) view directions → bool (..., R*C). A tile is
+    fetched when its center lies within fov/2 + half the tile diagonal
+    of the view direction."""
+    centers = tile_centers(tile_rows, tile_cols, device=pred_xyz.device)
+    ang = geometry.great_circle_deg(pred_xyz[..., None, :], centers)  # (..., M)
+    tile_radius_deg = 0.5 * math.degrees(
+        math.sqrt((math.pi / tile_rows) ** 2 + (2 * math.pi / tile_cols) ** 2)
+    )
+    return ang <= (fov_deg / 2.0 + tile_radius_deg)
+
+
+def tile_of(
+    xyz: torch.Tensor, *, tile_rows: int = 6, tile_cols: int = 12
+) -> torch.Tensor:
+    """Index of the tile containing each view direction (..., 3) → (...,)
+    int64 in [0, rows*cols)."""
+    yaw, pitch = geometry.xyz_to_euler(xyz)
+    r = torch.clamp(
+        ((math.pi / 2 - pitch) / math.pi * tile_rows).to(torch.int32),
+        0, tile_rows - 1,
+    )
+    c = torch.clamp(
+        ((yaw + math.pi) / (2 * math.pi) * tile_cols).to(torch.int32),
+        0, tile_cols - 1,
+    )
+    return (r * tile_cols + c).long()
+
+
+def prefetch_accuracy(
+    pred_xyz: torch.Tensor,
+    true_xyz: torch.Tensor,
+    *,
+    tile_rows: int = 6,
+    tile_cols: int = 12,
+    fov_deg: float = 90.0,
+):
+    """Serving-quality metrics for tile prefetch: (hit_rate,
+    tiles_per_frame). hit_rate = fraction of frames whose TRUE
+    viewport-center tile was in the predicted prefetch set;
+    tiles_per_frame = mean prefetched tile count (bandwidth proxy)."""
+    mask = tiles_for_fov(
+        pred_xyz, tile_rows=tile_rows, tile_cols=tile_cols, fov_deg=fov_deg
+    )  # (..., M)
+    true_tile = tile_of(true_xyz, tile_rows=tile_rows, tile_cols=tile_cols)
+    hit = torch.gather(mask, -1, true_tile[..., None])[..., 0]
+    return hit.float().mean(), mask.sum(dim=-1).float().mean()

@@ -1,0 +1,22 @@
+"""Model families + registry.
+
+Every family exposes ``init(gen, cfg, *, device) -> params`` and
+``apply(params, cfg, past_n, future_n=None, *, ...) -> (B, H_out, D)``, as
+in ``longterm360fov_tpu.models``. Only the seq2seq LSTM family is ported.
+"""
+
+from __future__ import annotations
+
+from . import cell, seq2seq  # noqa: F401
+
+
+def get_family(name: str):
+    """Resolve a model family → module with (init, apply)."""
+    if name in ("seq2seq", "lstm", "stacked"):
+        return seq2seq
+    if name in ("cross_user", "fusion", "transformer"):
+        raise NotImplementedError(
+            f"model family {name!r} is not ported yet (ROADMAP.md, slice "
+            f"{name!r})"
+        )
+    raise KeyError(f"unknown model family {name!r}")

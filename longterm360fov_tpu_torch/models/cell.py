@@ -1,0 +1,60 @@
+"""LSTM cell: parameters and the plain implementation.
+
+PyTorch twin of ``longterm360fov_tpu.models.cell``. The layout is the JAX
+package's: one fused gate matrix ``W: (d_in + hidden, 4 * hidden)`` applied
+to ``[x, h]``, gate order (i, f, g, o), and one bias ``(4 * hidden,)``.
+(``torch.nn.LSTM`` keeps ``w_ih``/``w_hh`` and two biases instead;
+``W = [w_ih.T; w_hh.T]`` and ``b = b_ih + b_hh``.)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+__all__ = ["LSTMParams", "LSTMState", "init_lstm", "lstm_cell"]
+
+
+class LSTMParams(NamedTuple):
+    w: torch.Tensor  # (d_in + hidden, 4*hidden) fused gate weights
+    b: torch.Tensor  # (4*hidden,) fused gate bias
+
+
+# carry = (h, c), each (batch, hidden)
+LSTMState = Tuple[torch.Tensor, torch.Tensor]
+
+
+def init_lstm(
+    gen: torch.Generator, d_in: int, hidden: int, *,
+    dtype=torch.float32, device,
+) -> LSTMParams:
+    """Glorot-uniform gate weights; forget-gate bias starts at 1.0.
+
+    ``gen`` is a CPU generator; the draw is made on the CPU and moved to
+    ``device``. The numbers differ from ``jax.random`` for the same seed:
+    tests carry the JAX weights across with ``params.params_from_numpy``."""
+    fan_in, fan_out = d_in + hidden, 4 * hidden
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    w = (torch.rand((fan_in, fan_out), generator=gen) * 2 - 1) * limit
+    b = torch.zeros(4 * hidden)
+    b[hidden : 2 * hidden] = 1.0  # forget gate
+    return LSTMParams(
+        w=w.to(device=device, dtype=dtype), b=b.to(device=device, dtype=dtype)
+    )
+
+
+def lstm_cell(
+    params: LSTMParams, x: torch.Tensor, state: LSTMState
+) -> LSTMState:
+    """One LSTM step. x: (B, D), state: ((B, H), (B, H)) → new state.
+
+    Gates and cell update run in f32 whatever the parameter dtype, as the
+    JAX cell's ``preferred_element_type=float32`` product does."""
+    h, c = state
+    gates = torch.cat([x, h], dim=-1).float() @ params.w.float() + params.b.float()
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new.to(h.dtype), c_new.to(c.dtype)

@@ -1,0 +1,511 @@
+"""Online serving: the device program and dynamic batching over concurrent
+viewers.
+
+PyTorch twin of the serve-path subset of ``longterm360fov_tpu.serving``:
+
+- :func:`make_serve_fn` — the whole serve path as one callable on the
+  device of the params: normalize → encode → H_out-step autoregressive
+  decode → denormalize → xyz→(yaw, pitch) → horizon-union prefetch mask,
+  through the fused CUDA serve kernel (``impl="fused"``) or the plain
+  PyTorch path (``impl="plain"``).
+- :class:`DynamicBatcher` — coalesces concurrent requests into ONE device
+  dispatch (copied from the JAX package; only the readback differs).
+  Padding rows are copies of a real request row and are sliced off before
+  results are returned, so co-batching never changes any viewer's answer.
+- :func:`load_exported_params` — loads the flat dotted-key ``export`` npz
+  of the JAX package into the port's params.
+
+The TCP daemon, per-viewer pose windows, hot-reload ops, grouped
+serving, the batcher's request extras for context and peer families and
+its mesh bucket divisor are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from . import geometry, infer
+
+__all__ = [
+    "DynamicBatcher",
+    "ParamStore",
+    "make_serve_fn",
+    "flat_param_items",
+    "load_exported_params",
+]
+
+
+# --------------------------------------------------------------------------
+# device program
+# --------------------------------------------------------------------------
+
+
+class ParamStore:
+    """Mutable holder for the current params: the serve program reads
+    ``.params`` at every dispatch, so swapping them hot-reloads the model."""
+
+    def __init__(self, params):
+        self.params = params
+        self.version = 0
+
+    def swap(self, params):
+        self.params = params  # atomic attribute store
+        self.version += 1
+
+
+def make_serve_fn(
+    params,
+    cfg,
+    fam,
+    *,
+    device,
+    with_tiles: bool = True,
+    tile_rows: int = 6,
+    tile_cols: int = 12,
+    fov_deg: float = 90.0,
+    impl: str = "fused",
+    param_store: Optional[ParamStore] = None,
+) -> Callable:
+    """One serve program: batch dict of host arrays → ONE packed
+    ``(B, 2*H_out[+M])`` f32 tensor on ``device``, where the params must be:
+    yaw, pitch and, with ``with_tiles``, the prefetch mask as 0/1. One
+    output buffer means one device→host copy. The returned callable's
+    ``.unpack`` turns the host copy into ``{"yaw", "pitch", ["prefetch"]}``
+    numpy arrays; the DynamicBatcher calls it on every readback.
+
+    ``param_store`` makes the returned callable read its params from the
+    store at every dispatch instead of the ``params`` snapshot.
+    """
+    device = torch.device(device)
+    if impl not in infer.IMPLS:
+        raise ValueError(f"impl must be one of {infer.IMPLS}, got {impl!r}")
+    store = param_store if param_store is not None else ParamStore(params)
+    h_out = cfg.model.h_out
+
+    @torch.inference_mode()
+    def fn(batch):
+        tensors = {
+            k: torch.as_tensor(v, dtype=torch.float32, device=device)
+            for k, v in batch.items()
+        }
+        xyz = infer.predict_xyz(store.params, cfg, fam, tensors, impl=impl)
+        yaw, pitch = geometry.xyz_to_euler(xyz)
+        out = [yaw, pitch]
+        if with_tiles:
+            mask = infer.tiles_for_fov(
+                xyz, tile_rows=tile_rows, tile_cols=tile_cols, fov_deg=fov_deg
+            )  # (B, H_out, M)
+            # union over the horizon = this tick's prefetch set
+            out.append(mask.any(dim=1).float())
+        return torch.cat(out, dim=-1)
+
+    def unpack(host: np.ndarray) -> Dict[str, np.ndarray]:
+        out = {
+            "yaw": host[..., :h_out],
+            "pitch": host[..., h_out : 2 * h_out],
+        }
+        if with_tiles:
+            out["prefetch"] = host[..., 2 * h_out :] > 0.5
+        return out
+
+    fn.unpack = unpack
+    return fn
+
+
+def _walk(tree, fn, prefix=""):
+    """Rebuild ``tree`` with ``fn(dotted_key, leaf)`` at every leaf, in
+    ``jax.tree_util``'s order: dict keys sorted, sequences by index, named
+    tuples by field name."""
+    join = (lambda k: f"{prefix}.{k}") if prefix else str
+    if isinstance(tree, dict):
+        return {k: _walk(tree[k], fn, join(k)) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(
+            *(_walk(getattr(tree, f), fn, join(f)) for f in tree._fields)
+        )
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(v, fn, join(i)) for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def flat_param_items(params):
+    """(dotted-path key, leaf) pairs for a params tree — the same keys the
+    JAX ``serving.flat_param_items`` gives for the same structure, which
+    are the ``export`` npz's keys."""
+    items = []
+    _walk(params, lambda k, leaf: items.append((k, leaf)))
+    return items
+
+
+def load_exported_params(npz_path: str, cfg, fam, *, device):
+    """Rebuild the params from an ``export``-ed flat npz onto ``device``.
+
+    Inverse of the JAX ``cli.cmd_export``: init a skeleton with the
+    family's ``init`` (structure + dtypes only), then replace every leaf by
+    its dotted-path key from the npz. Errors out on any missing/extra key
+    or shape mismatch, with the JAX loader's errors — a silent partial load
+    would serve garbage predictions."""
+    skeleton = fam.init(torch.Generator().manual_seed(0), cfg.model, device="cpu")
+    keys = set()
+    with np.load(npz_path) as loaded:
+
+        def leaf(key, like):
+            if key not in loaded.files:
+                raise KeyError(
+                    f"exported npz {npz_path!r} is missing param {key!r} — "
+                    f"was it exported for preset {cfg.name!r}?"
+                )
+            arr = loaded[key]
+            if arr.shape != tuple(like.shape):
+                raise ValueError(
+                    f"param {key!r}: npz shape {arr.shape} != model shape "
+                    f"{tuple(like.shape)} (wrong preset/architecture)"
+                )
+            keys.add(key)
+            return torch.from_numpy(arr).to(device=device, dtype=like.dtype)
+
+        params = _walk(skeleton, leaf)
+        extra = set(loaded.files) - keys
+    if extra:
+        raise KeyError(f"exported npz has unknown params: {sorted(extra)}")
+    return params
+
+
+# --------------------------------------------------------------------------
+# dynamic batcher
+# --------------------------------------------------------------------------
+
+
+class _Pending:
+    """One queued unit of work: ``n`` request rows sharing one waiter.
+
+    ``arrays`` values always carry a leading row axis (n, ...) so the
+    dispatcher can concatenate single-viewer and bulk entries into one
+    device batch with no per-row Python work. ``n == 1`` entries get
+    their results delivered squeezed (per-row arrays), bulk entries get
+    the (n, ...) slice."""
+
+    __slots__ = ("arrays", "n", "event", "result", "error", "t_submit")
+
+    def __init__(self, arrays, n=1):
+        self.arrays = arrays
+        self.n = n
+        self.event = threading.Event()
+        self.result = None
+        self.error = None
+        self.t_submit = time.monotonic()
+
+
+class DynamicBatcher:
+    """Coalesce concurrent single-viewer requests into bucketed batches.
+
+    One dispatcher thread owns the device: it drains the queue, waits up
+    to ``max_wait_ms`` for co-arrivals (classic latency/throughput
+    knob), pads the batch up the power-of-two bucket ladder, runs
+    ``serve_fn`` once, and distributes per-row results. Padding
+    replicates row 0 (real data → no NaN/denormal risk) and is sliced
+    off before delivery.
+
+    Dispatch is PIPELINED: CUDA launches are asynchronous, so the
+    dispatcher only *launches* the serve program and hands the output
+    tensors to a completion thread, which blocks on the device→host
+    readback (``.cpu()``) and delivers per-row results. Up to
+    ``pipeline_depth`` batches may be awaiting readback while the
+    dispatcher forms and launches the next one — this overlaps host
+    stacking work with device compute. ``pipeline_depth=1`` still
+    permits one launch while one readback is in flight; the completion
+    queue's bound provides backpressure so device work cannot pile up
+    unboundedly."""
+
+    def __init__(
+        self,
+        serve_fn: Callable,
+        *,
+        h_in: int,
+        max_batch: int = 256,
+        max_wait_ms: float = 2.0,
+        max_queue: Optional[int] = None,
+        pipeline_depth: int = 4,
+    ):
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        self._serve = serve_fn
+        self.h_in = int(h_in)
+        self.max_batch = int(max_batch)
+        self.max_wait_s = float(max_wait_ms) / 1e3
+        # admission control: a bounded queue turns overload into an
+        # immediate "overloaded" rejection instead of unbounded latency
+        # (default depth: 8 saturated batches of headroom)
+        self.max_queue = int(max_queue) if max_queue else 8 * self.max_batch
+        self._q: "queue.Queue[Optional[_Pending]]" = queue.Queue(
+            maxsize=self.max_queue + 1  # +1 slot reserved for the sentinel
+        )
+        # admission is counted in ROWS (a bulk entry is n rows of device
+        # work), tracked here because Queue.qsize counts entries
+        self._queued_rows = 0
+        self._lock = threading.Lock()
+        # metrics
+        self.n_requests = 0
+        self.n_batches = 0
+        self.n_rejected = 0
+        self.rows_padded = 0
+        self.rows_total = 0
+        self._latencies = deque(maxlen=2048)
+        # launched-but-not-read-back batches; the bound is the
+        # pipelining backpressure (dispatcher blocks on put when full)
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self._inflight: "queue.Queue" = queue.Queue(
+            maxsize=self.pipeline_depth
+        )
+        self._stopped = False
+        # one completer per pipeline slot: concurrent device→host
+        # readbacks overlap each other's latency
+        self._completers = [
+            threading.Thread(
+                target=self._complete_loop,
+                name=f"fov-completer-{i}",
+                daemon=True,
+            )
+            for i in range(self.pipeline_depth)
+        ]
+        for t in self._completers:
+            t.start()
+        self._thread = threading.Thread(
+            target=self._loop, name="fov-batcher", daemon=True
+        )
+        self._thread.start()
+
+    # -- client side --------------------------------------------------
+
+    def submit(self, past: np.ndarray) -> _Pending:
+        """Queue one request. ``past`` is (h_in, 3) xyz."""
+        past = np.asarray(past, np.float32)
+        if past.shape != (self.h_in, 3):
+            raise ValueError(
+                f"past must be ({self.h_in}, 3) xyz, got {past.shape}"
+            )
+        p = _Pending({"past": past[None]})
+        self._enqueue(p)
+        return p
+
+    def submit_many(self, pasts: np.ndarray) -> list:
+        """Queue N windows as bulk entries (the gateway `predict_batch`
+        path): ONE waiter per ≤``max_batch`` chunk instead of one per
+        window, so a 4096-window request costs a handful of queue and
+        dispatch operations rather than 4096 Python round trips through
+        the coalescing loop. Returns the list of pending chunks in row
+        order; each result holds the ``(chunk_rows, ...)`` output slice."""
+        pasts = np.ascontiguousarray(np.asarray(pasts, np.float32))
+        if pasts.ndim != 3 or pasts.shape[1:] != (self.h_in, 3):
+            raise ValueError(
+                f"pasts must be (N, {self.h_in}, 3) xyz, got {pasts.shape}"
+            )
+        n = pasts.shape[0]
+        if n == 0:
+            raise ValueError("empty bulk request")
+        pendings = []
+        for ofs in range(0, n, self.max_batch):
+            chunk = pasts[ofs:ofs + self.max_batch]
+            p = _Pending({"past": chunk}, n=chunk.shape[0])
+            self._enqueue(p)
+            pendings.append(p)
+        return pendings
+
+    def _enqueue(self, p: _Pending):
+        if self._stopped:
+            raise RuntimeError("batcher is stopped")
+        with self._lock:
+            if self._queued_rows + p.n > self.max_queue:
+                self.n_rejected += p.n
+                raise RuntimeError(
+                    f"overloaded: {self._queued_rows} rows already queued "
+                    f"of {self.max_queue} max (retry with backoff)"
+                )
+            self._queued_rows += p.n
+        try:
+            self._q.put_nowait(p)
+        except queue.Full:  # sentinel slot contention — treat as overload
+            with self._lock:
+                self._queued_rows -= p.n
+                self.n_rejected += p.n
+            raise RuntimeError(
+                f"overloaded: {self.max_queue} rows already queued "
+                f"(retry with backoff)"
+            ) from None
+
+    def predict(self, past: np.ndarray, timeout: float = 30.0):
+        """submit + wait: → dict of per-request numpy arrays."""
+        p = self.submit(past)
+        if not p.event.wait(timeout):
+            raise TimeoutError("prediction timed out")
+        if p.error is not None:
+            raise p.error
+        return p.result
+
+    # -- dispatcher ----------------------------------------------------
+
+    def _bucket(self, n: int) -> int:
+        b = 1  # ladder: 1, 2, 4, ...
+        while b < n:
+            b *= 2
+        return min(b, self.max_batch)
+
+    def _take(self, timeout=None):
+        """Dequeue one entry (or the sentinel), maintaining the row
+        count the admission check reads."""
+        p = (
+            self._q.get()
+            if timeout is None
+            else self._q.get(timeout=timeout)
+        )
+        if p is not None:
+            with self._lock:
+                self._queued_rows -= p.n
+        return p
+
+    def _loop(self):
+        carry = None
+        while True:
+            first = carry if carry is not None else self._take()
+            carry = None
+            if first is None:
+                return
+            batch = [first]
+            rows = first.n
+            deadline = time.monotonic() + self.max_wait_s
+            while rows < self.max_batch:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                try:
+                    nxt = self._take(timeout=left)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._launch(batch)
+                    return
+                if rows + nxt.n > self.max_batch:
+                    carry = nxt  # would burst the bucket cap → next batch
+                    break
+                batch.append(nxt)
+                rows += nxt.n
+            self._launch(batch)
+
+    def _launch(self, batch):
+        """Stack + launch the serve program (async) and enqueue its
+        output tensors for the completion thread. Blocks only when
+        ``pipeline_depth`` batches are already awaiting readback."""
+        n = sum(p.n for p in batch)
+        b = self._bucket(n)
+        try:
+            stacked = {}
+            for key in batch[0].arrays:
+                blocks = [p.arrays[key] for p in batch]
+                if b > n:  # pad with copies of row 0 (sliced off below)
+                    row0 = blocks[0][:1]
+                    blocks.append(
+                        np.broadcast_to(row0, (b - n,) + row0.shape[1:])
+                    )
+                stacked[key] = (
+                    np.concatenate(blocks)
+                    if len(blocks) > 1
+                    else np.ascontiguousarray(blocks[0])
+                )
+            out = self._serve(stacked)
+        except Exception as e:  # noqa: BLE001 — deliver to all waiters
+            self._deliver_error(batch, b, e)
+            return
+        self._inflight.put((batch, b, out))
+
+    def _complete_loop(self):
+        while True:
+            item = self._inflight.get()
+            if item is None:
+                return
+            batch, b, out = item
+            try:
+                # the packed output: ONE device→host fetch
+                host = self._serve.unpack(out.cpu().numpy())
+                ofs = 0
+                for p in batch:
+                    if p.n == 1:  # single request: per-row arrays
+                        p.result = {k: v[ofs] for k, v in host.items()}
+                    else:  # bulk chunk: the (n, ...) slice
+                        p.result = {
+                            k: v[ofs:ofs + p.n] for k, v in host.items()
+                        }
+                    ofs += p.n
+                    p.event.set()
+            except Exception as e:  # noqa: BLE001 — device-side failure
+                self._deliver_error(batch, b, e)
+                continue
+            self._account(batch, b)
+
+    def _deliver_error(self, batch, b, e):
+        for p in batch:
+            p.error = e
+            p.event.set()
+        self._account(batch, b)
+
+    def _account(self, batch, b):
+        now = time.monotonic()
+        rows = sum(p.n for p in batch)
+        with self._lock:
+            self.n_requests += rows
+            self.n_batches += 1
+            self.rows_total += b
+            self.rows_padded += b - rows
+            for p in batch:
+                self._latencies.append(now - p.t_submit)
+
+    def stats(self) -> Dict:
+        with self._lock:
+            lat = sorted(self._latencies)
+            pct = (
+                lambda q: round(lat[min(int(q * len(lat)), len(lat) - 1)] * 1e3, 3)
+                if lat
+                else None
+            )
+            return {
+                "requests": self.n_requests,
+                "rejected": self.n_rejected,
+                "queue_depth": self._queued_rows,
+                "inflight": self._inflight.qsize(),
+                "batches": self.n_batches,
+                "mean_batch": round(self.n_requests / max(self.n_batches, 1), 2),
+                "pad_fraction": round(
+                    self.rows_padded / max(self.rows_total, 1), 4
+                ),
+                "latency_ms_p50": pct(0.50),
+                "latency_ms_p95": pct(0.95),
+                "latency_ms_p99": pct(0.99),
+            }
+
+    def stop(self):
+        if not self._stopped:
+            self._stopped = True
+            self._q.put(None)
+            self._thread.join(timeout=10)
+            # dispatcher is done launching; flush the completion pipeline
+            for _ in self._completers:
+                self._inflight.put(None)
+            for t in self._completers:
+                t.join(timeout=30)
+            # a submit() racing past the _stopped check can land behind
+            # the sentinel — fail those fast instead of letting their
+            # waiters sit out the full timeout
+            while True:
+                try:
+                    p = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if p is not None:
+                    p.error = RuntimeError("batcher is stopped")
+                    p.event.set()

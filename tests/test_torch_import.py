@@ -1,0 +1,35 @@
+"""The port stands alone: every module of longterm360fov_tpu_torch, and
+chip_smoke.py, import with jax and the JAX package made unimportable — the
+machine with the card has no jax."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+for blocked in ("jax", "jaxlib", "longterm360fov_tpu"):
+    sys.modules[blocked] = None  # any import of them raises ImportError
+import longterm360fov_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+names = [n for n in names if not n.endswith(".__main__")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke  # noqa: F401
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "longterm360fov_tpu") and sys.modules[m] is not None)
+print(len(names), loaded)
+"""
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    assert proc.returncode == 0, proc.stderr
+    count, loaded = proc.stdout.split(" ", 1)
+    assert int(count) >= 14, proc.stdout  # every module of the package
+    assert loaded.strip() == "[]"
