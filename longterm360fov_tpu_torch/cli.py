@@ -1,24 +1,41 @@
 """Command line of the port: ``python -m longterm360fov_tpu_torch``.
 
-``presets`` lists the experiment presets; ``serve-bench`` times the serve
-path (twin of the JAX ``serve-bench``) on an explicit device and prints one
-JSON line. On ``--device cuda`` the time comes from CUDA events and the line
-names the card and its power limit; on ``--device cpu`` it is the host
-clock, for rehearsal only.
+``presets`` lists the experiment presets; ``train`` trains a preset and
+``eval`` evaluates its checkpoint (twins of the JAX subcommands);
+``serve-bench`` times the serve path (twin of the JAX ``serve-bench``) on an
+explicit device and prints one JSON line. On ``--device cuda`` the time
+comes from CUDA events and the line names the card and its power limit; on
+``--device cpu`` it is the host clock, for rehearsal only.
+
+Every subcommand that computes takes ``--device`` and runs there; the
+f32 products run in full f32 on the card (``exact_f32_matmul``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
 
 __all__ = ["main", "serve_bench", "card"]
+
+# train flags of the JAX CLI that the port does not have yet, and the
+# ROADMAP.md item that brings each
+_NOT_PORTED = {
+    "data_parallel": "--data-parallel: ROADMAP.md, slice 'parallelism'",
+    "seq_parallel": "--seq-parallel: ROADMAP.md, slice 'parallelism'",
+    "pipeline_parallel": "--pipeline-parallel: ROADMAP.md, slice 'parallelism'",
+    "peer_align": "--peer-align: ROADMAP.md, slice 'cross_user'",
+    "bf16": "--bf16: ROADMAP.md Queue 2, the lstm_seq_states bf16-compute tier",
+    "tb_dir": "--tb-dir: ROADMAP.md, slice 'the TCP daemon and CLI'",
+}
 
 
 def card(device: torch.device) -> dict:
@@ -49,9 +66,7 @@ def serve_bench(
     from .ops.fused_lstm import exact_f32_matmul
     from .params import params_from_numpy
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but torch sees no CUDA device")
+    device = _device(str(device))
     exact_f32_matmul()  # the plain impl in the f32 the kernel computes
     cfg = get_preset(preset)
     params = params_from_numpy(oracle.init_params_np(seed, cfg.model), device)
@@ -101,7 +116,99 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     sb.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
     sb.add_argument("--seed", type=int, default=0)
+
+    tr = sub.add_parser("train", help="train a preset")
+    tr.add_argument("--preset", required=True)
+    tr.add_argument("--data", help="packed npz from prepare-data; synthetic if omitted")
+    tr.add_argument("--steps", type=int)
+    tr.add_argument("--batch-size", type=int)
+    tr.add_argument("--lr", type=float)
+    tr.add_argument("--accum", type=int, help="gradient-accumulation microbatches per step")
+    tr.add_argument("--gc-weight", type=float, dest="gc_weight",
+                    help="blend weight of the spherical great-circle loss")
+    tr.add_argument("--ckpt-dir")
+    tr.add_argument("--log-file")
+    tr.add_argument("--resume", action="store_true")
+    tr.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
+    # JAX train flags not ported yet: each raises, naming its ROADMAP item
+    tr.add_argument("--train-compute", dest="train_compute", choices=["float32", "bfloat16"])
+    tr.add_argument("--data-parallel", action="store_true")
+    tr.add_argument("--seq-parallel", type=int, default=0)
+    tr.add_argument("--pipeline-parallel", type=int, default=0)
+    tr.add_argument("--peer-align", action="store_true", dest="peer_align")
+    tr.add_argument("--bf16", action="store_true")
+    tr.add_argument("--tb-dir")
+
+    ev = sub.add_parser("eval", help="evaluate a checkpoint")
+    ev.add_argument("--preset", required=True)
+    ev.add_argument("--ckpt-dir", required=True)
+    ev.add_argument("--data")
+    ev.add_argument("--json", action="store_true")
+    ev.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
     return p
+
+
+def _device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}, but torch sees no CUDA device")
+    return device
+
+
+def _open_checkpoint(ckpt_dir, cfg, *, resuming=False):
+    """A Checkpointer whose on-disk model hash matches ``cfg`` (else exit:
+    the params would be misread); a full-hash mismatch only warns, when
+    resuming."""
+    from .checkpoint import Checkpointer
+
+    ck = Checkpointer(ckpt_dir, cfg)
+    if not ck.check_model_config():
+        raise SystemExit(
+            f"checkpoint in {ckpt_dir!r} was written for a different model "
+            f"architecture/family than preset {cfg.name!r} (model-config "
+            f"hash mismatch); evaluating it here would silently "
+            f"misinterpret the parameters. Use the preset it was trained "
+            f"with."
+        )
+    if resuming and not ck.check_config():
+        print(
+            f"warning: resuming in {ckpt_dir!r} with different training "
+            f"hyperparameters than the checkpoint was created with "
+            f"(config hash mismatch; architecture matches)",
+            file=sys.stderr,
+        )
+    return ck
+
+
+def _load_or_synth_data(args, cfg):
+    """(train, test) window dicts: ``--data`` and its ``_test.npz`` twin
+    (else a 90/10 window-index split), or the synthetic store of 8 users,
+    2 videos and 1200 frames."""
+    from . import data as D
+    from . import traces as T
+
+    if getattr(args, "data", None):
+        packed = D.load_packed(args.data)
+        test_path = os.path.splitext(args.data)[0] + "_test.npz"
+        if os.path.exists(test_path):
+            return packed, D.load_packed(test_path)
+        print(
+            f"warning: {test_path} not found; falling back to a 90/10 "
+            f"window-index split (boundary windows share frames across "
+            f"the cut — prefer prepare-data's paired _test.npz)",
+            file=sys.stderr,
+        )
+        cut = int(len(packed["past"]) * 0.9)
+        return ({k: v[:cut] for k, v in packed.items()},
+                {k: v[cut:] for k, v in packed.items()})
+    store = T.synthetic_store(
+        n_users=8, n_videos=2, n_frames=1200, rate_hz=cfg.rate_hz, seed=cfg.seed,
+    )
+    return D.windows_from_store(
+        store, cfg.model.h_in, cfg.model.h_out, stride=cfg.stride,
+        n_other_users=cfg.n_other_users
+        if cfg.model_family in ("cross_user", "transformer") else 0,
+    )
 
 
 def cmd_presets(_args):
@@ -122,6 +229,83 @@ def cmd_serve_bench(args):
     )))
 
 
+def cmd_train(args):
+    from . import train as TR
+    from .config import get_preset
+    from .models import get_family
+    from .ops.fused_lstm import exact_f32_matmul
+
+    for flag, item in _NOT_PORTED.items():
+        if getattr(args, flag):
+            raise SystemExit(f"not ported yet: {item}")
+    if args.train_compute == "bfloat16":
+        raise SystemExit(
+            "not ported yet: --train-compute bfloat16: ROADMAP.md Queue 2, the "
+            "lstm_seq_states bf16-compute tier"
+        )
+    over = {k: getattr(args, k) for k in ("steps", "batch_size", "lr", "accum", "gc_weight")
+            if getattr(args, k) is not None}
+    cfg = get_preset(args.preset, **over)
+    fam = get_family(cfg.model_family)
+    device = _device(args.device)
+    exact_f32_matmul()
+    train_d, test_d = _load_or_synth_data(args, cfg)
+    h_in, h_out = train_d["past"].shape[1], train_d["future"].shape[1]
+    if (h_in, h_out) != (cfg.model.h_in, cfg.model.h_out):
+        raise SystemExit(
+            f"data windows are {h_in}-in/{h_out}-out but preset "
+            f"{cfg.name!r} expects {cfg.model.h_in}-in/{cfg.model.h_out}-out; "
+            f"re-run prepare-data with matching --h-in/--h-out"
+        )
+    if cfg.batch_size > len(train_d["past"]):
+        cfg = cfg.replace(batch_size=len(train_d["past"]))
+    if cfg.accum > 1 and cfg.batch_size % cfg.accum:
+        bs = (cfg.batch_size // cfg.accum) * cfg.accum
+        if bs == 0:
+            raise SystemExit(f"--accum {cfg.accum} exceeds batch size {cfg.batch_size}")
+        print(f"rounding batch_size down to {bs} (multiple of --accum)")
+        cfg = cfg.replace(batch_size=bs)
+    state = None
+    if args.resume and args.ckpt_dir:
+        ck = _open_checkpoint(args.ckpt_dir, cfg, resuming=True)
+        if ck.latest_step() is not None:
+            fresh = TR.init_state(cfg, fam.init, TR.make_optimizer(cfg), device=device)
+            state = ck.restore(fresh)
+            print(f"resumed from step {state.step}")
+    state, history = TR.train_loop(
+        cfg, fam.init, fam.apply, train_d, device=device,
+        eval_data=test_d or None, log_file=args.log_file,
+        checkpoint_dir=args.ckpt_dir, state=state,
+        fused_tf_fn=getattr(fam, "apply_fused_tf", None),
+    )
+    if history:
+        print(json.dumps(history[-1]))
+
+
+def cmd_eval(args):
+    from . import evaluate as E
+    from . import train as TR
+    from .config import get_preset
+    from .models import get_family
+    from .ops.fused_lstm import exact_f32_matmul
+
+    cfg = get_preset(args.preset)
+    fam = get_family(cfg.model_family)
+    device = _device(args.device)
+    exact_f32_matmul()
+    ck = _open_checkpoint(args.ckpt_dir, cfg)
+    state = ck.restore(TR.init_state(cfg, fam.init, TR.make_optimizer(cfg), device=device))
+    _, test_d = _load_or_synth_data(args, cfg)
+    res = E.evaluate(state.params, cfg, test_d, impl="fused")
+    if args.json:
+        print(json.dumps(res))
+    else:
+        print(E.comparison_table({cfg.name: res}))
+
+
 def main(argv=None):
     args = _build_parser().parse_args(argv)
-    {"presets": cmd_presets, "serve-bench": cmd_serve_bench}[args.cmd](args)
+    {
+        "presets": cmd_presets, "serve-bench": cmd_serve_bench,
+        "train": cmd_train, "eval": cmd_eval,
+    }[args.cmd](args)

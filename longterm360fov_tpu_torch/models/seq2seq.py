@@ -4,7 +4,9 @@ PyTorch twin of ``longterm360fov_tpu.models.seq2seq``: an LSTM encoder
 consumes the observed (past) window; an LSTM decoder emits the future
 horizon, autoregressively or teacher-forced. The scans of the JAX version
 are Python loops over time here; the serving hot loop is one CUDA kernel
-(:func:`serve_fused`, ``ops.fused_lstm.fused_serve``).
+(:func:`serve_fused`, ``ops.fused_lstm.fused_serve``), and the teacher-forced
+training forward and backward run on the kernels of ``ops.lstm_train``
+(:func:`apply_fused_tf`).
 
 Params are a plain dict, the JAX pytree's structure:
 ``{"encoder": [LSTMParams], "decoder": [LSTMParams], "proj": {"w", "b"}}``.
@@ -20,7 +22,7 @@ import torch
 
 from .cell import init_lstm, lstm_cell
 
-__all__ = ["Seq2SeqConfig", "init", "apply", "decode", "serve_fused"]
+__all__ = ["Seq2SeqConfig", "init", "apply", "decode", "apply_fused_tf", "serve_fused"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +167,50 @@ def decode(
 ) -> torch.Tensor:
     """Pure autoregressive decode (the plain inference path)."""
     return apply(params, cfg, past_n, None, context=context)
+
+
+def apply_fused_tf(
+    params: Params,
+    cfg: Seq2SeqConfig,
+    past_n: torch.Tensor,
+    future_n: torch.Tensor,
+    *,
+    context: Optional[torch.Tensor] = None,
+    residual_dtype: torch.dtype = torch.bfloat16,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Teacher-forced training forward on ``ops.lstm_train.lstm_seq_states``:
+    the encoder and the teacher-forced decoder each run as one forward
+    kernel, with the kernels' backward under autograd. Matches :func:`apply`
+    in teacher-forcing mode up to residual rounding: the saved residuals
+    default to bf16, as in JAX; ``residual_dtype=torch.float32`` gives exact
+    gradient parity. As in JAX, the decoder starts from the encoder's final
+    states read back from its residuals.
+
+    Not ported yet, and raising: a ``context`` (ROADMAP.md, slice
+    'cross_user') and bf16 ``compute_dtype`` (ROADMAP.md Queue 2, the
+    lstm_seq_states bf16-compute tier)."""
+    if context is not None:
+        raise NotImplementedError(
+            "apply_fused_tf: a decoder context is not ported yet "
+            "(ROADMAP.md, slice 'cross_user')"
+        )
+    # imported here: ops.lstm_train imports models.cell, whose package
+    # imports this module
+    from ..ops.lstm_train import lstm_seq_states
+
+    batch = past_n.shape[0]
+    z = past_n.new_zeros((cfg.layers, batch, cfg.hidden), dtype=torch.float32)
+    _, hT, cT = lstm_seq_states(
+        params["encoder"], past_n.float().contiguous(), z, z, residual_dtype,
+        compute_dtype,
+    )
+    y0 = past_n[:, -1:].float()
+    teacher_in = torch.cat([y0, future_n[:, :-1].float()], dim=1)
+    hs_dec, _, _ = lstm_seq_states(
+        params["decoder"], teacher_in, hT, cT, residual_dtype, compute_dtype
+    )
+    return _project(params, hs_dec).float()
 
 
 def serve_fused(

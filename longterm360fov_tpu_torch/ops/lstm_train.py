@@ -1,0 +1,531 @@
+"""Teacher-forced stacked LSTM for training: hand-written CUDA forward and
+backward kernels, their plain PyTorch versions, and the autograd function
+that joins them.
+
+Twin of ``longterm360fov_tpu.ops.lstm_train``: :func:`lstm_seq_states` runs
+a stacked LSTM over a known input sequence ``xs (B, T, D)`` from initial
+states ``h0, c0 (L, B, H)`` and returns ``hs_top (B, T, H)``, ``hT`` and
+``cT (L, B, H)``, all f32. Its gradient comes from the saved residuals: per
+layer ``hs`` and ``cs (B, T, H)`` and the post-activation gates
+``(B, T, 4H)`` (order i, f, g, o), in ``residual_dtype`` (f32 or bf16).
+
+Three kernels of ``csrc/lstm_train.cu`` carry it on the card:
+
+* :func:`lstm_fwd`, the forward recurrence, which writes the residuals;
+* :func:`lstm_bwd`, the backward recurrence in reverse time, which carries
+  ``dh`` and ``dc`` per layer and writes ``dgates``, ``dxs``, ``dh0`` and
+  ``dc0``;
+* :func:`lstm_dw`, the reduction ``dW_l = Σ_{b,t} z_{b,t}ᵀ dgates_{b,t}``
+  and ``db_l = Σ dgates`` with ``z = [input_t, h_{t-1}]``, split over the
+  (b, t) rows into partial sums that a second pass adds in a fixed order:
+  no float atomics, so two runs give the same bits.
+
+Each wrapper runs its plain version (``_forward_reference``,
+``_bwd_recurrence_reference``, ``_dw_reference``) on CPU tensors, and
+launches its kernel on CUDA tensors or raises; it never falls back. Each
+counts its kernel launches in ``.launches``.
+
+As in the JAX kernel, ``hT``, ``cT`` and ``hs_top`` are read back from the
+residual streams, so with bf16 residuals they are bf16-rounded; the
+backward rebuilds the input of layer l > 0 as ``o·tanh(c)`` of the layer
+below, and reads ``h_{t-1}``, ``c_{t-1}`` from the residuals (``h0``,
+``c0`` at t = 0).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, NamedTuple, Sequence, Tuple
+
+import torch
+
+from ..models.cell import LSTMParams, lstm_cell
+from . import _build
+
+__all__ = [
+    "Residuals",
+    "lstm_seq_states",
+    "lstm_seq",
+    "lstm_seq_states_reference",
+    "lstm_fwd",
+    "lstm_bwd",
+    "lstm_dw",
+    "kernel_rows",
+    "dw_splits",
+]
+
+MAX_LAYERS = 8  # csrc/lstm_train.cu MAX_LAYERS
+_SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use (227 KB)
+_MAX_THREADS = 256  # the recurrence kernels' __launch_bounds__
+_TR, _TJ = 4, 4  # rows and hidden units per thread
+_DW_TILE = 128  # csrc/lstm_train.cu DW_T: rows and columns of a dW tile
+RESIDUAL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+class Residuals(NamedTuple):
+    """What the forward saves for the backward, one tensor per layer."""
+
+    hs: List[torch.Tensor]  # (B, T, H) hidden state after step t
+    cs: List[torch.Tensor]  # (B, T, H) cell state after step t
+    gs: List[torch.Tensor]  # (B, T, 4H) post-activation gates i, f, g, o
+
+
+def _no_tf32(t: torch.Tensor, name: str):
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            f"{name}: TF32 matmul is on; call "
+            f"ops.fused_lstm.exact_f32_matmul() first"
+        )
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def lstm_seq_states_reference(
+    params: Sequence[LSTMParams], xs: torch.Tensor, h0: torch.Tensor,
+    c0: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The stacked LSTM as a step loop of ``cell.lstm_cell`` in f32, with no
+    residual rounding; torch autograd gives its gradient."""
+    _no_tf32(xs, "lstm_seq_states_reference")
+    states = [(h0[l], c0[l]) for l in range(len(params))]
+    hs_top = []
+    for t in range(xs.shape[1]):
+        inp = xs[:, t]
+        for l, p in enumerate(params):
+            states[l] = lstm_cell(p, inp, states[l])
+            inp = states[l][0]
+        hs_top.append(inp)
+    hT = torch.stack([s[0] for s in states])
+    cT = torch.stack([s[1] for s in states])
+    return torch.stack(hs_top, dim=1), hT, cT
+
+
+def _forward_reference(
+    params: Sequence[LSTMParams], xs: torch.Tensor, h0: torch.Tensor,
+    c0: torch.Tensor, residual_dtype: torch.dtype,
+) -> Residuals:
+    """Plain version of the forward kernel: the recurrence in f32 with f32
+    carries, every step's h, c and gates stored in ``residual_dtype``."""
+    _no_tf32(xs, "lstm_fwd plain version")
+    batch, t_len, _ = xs.shape
+    hidden = h0.shape[-1]
+    res = Residuals([], [], [])
+    for _ in params:
+        res.hs.append(xs.new_empty((batch, t_len, hidden), dtype=residual_dtype))
+        res.cs.append(xs.new_empty((batch, t_len, hidden), dtype=residual_dtype))
+        res.gs.append(xs.new_empty((batch, t_len, 4 * hidden), dtype=residual_dtype))
+    h = list(h0.unbind(0))
+    c = list(c0.unbind(0))
+    for t in range(t_len):
+        inp = xs[:, t]
+        for l, p in enumerate(params):
+            gates = torch.cat([inp, h[l]], dim=-1) @ p.w + p.b
+            i, f, g, o = gates.chunk(4, dim=-1)
+            i, f, g, o = i.sigmoid(), f.sigmoid(), g.tanh(), o.sigmoid()
+            c[l] = f * c[l] + i * g
+            h[l] = o * torch.tanh(c[l])
+            res.gs[l][:, t] = torch.cat([i, f, g, o], dim=-1)
+            res.cs[l][:, t] = c[l]
+            res.hs[l][:, t] = h[l]
+            inp = h[l]
+    return res
+
+
+def _bwd_recurrence_reference(
+    params: Sequence[LSTMParams], c0: torch.Tensor, res: Residuals,
+    dhs_top: torch.Tensor, dhT: torch.Tensor, dcT: torch.Tensor,
+) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward recurrence kernel: reverse time, per
+    layer top-down, carrying (dh, dc) → (dgates per layer (B, T, 4H),
+    dxs (B, T, D), dh0, dc0 (L, B, H)), all f32."""
+    _no_tf32(dhs_top, "lstm_bwd plain version")
+    batch, t_len, hidden = dhs_top.shape
+    d = params[0].w.shape[0] - hidden
+    dh = list(dhT.unbind(0))
+    dc = list(dcT.unbind(0))
+    dgates = [dhs_top.new_empty((batch, t_len, 4 * hidden)) for _ in params]
+    dxs = dhs_top.new_empty((batch, t_len, d))
+    for t in reversed(range(t_len)):
+        above = dhs_top[:, t]
+        for l in reversed(range(len(params))):
+            d_in = d if l == 0 else hidden
+            i, f, g, o = res.gs[l][:, t].float().chunk(4, dim=-1)
+            c_t = res.cs[l][:, t].float()
+            c_prev = res.cs[l][:, t - 1].float() if t > 0 else c0[l]
+            dh_total = above + dh[l]
+            tanh_c = torch.tanh(c_t)
+            dc_total = dh_total * o * (1.0 - tanh_c * tanh_c) + dc[l]
+            dg = torch.cat([
+                dc_total * g * i * (1.0 - i),
+                dc_total * c_prev * f * (1.0 - f),
+                dc_total * i * (1.0 - g * g),
+                dh_total * tanh_c * o * (1.0 - o),
+            ], dim=-1)
+            dgates[l][:, t] = dg
+            dz = dg @ params[l].w.t()
+            dh[l] = dz[:, d_in:]
+            dc[l] = dc_total * f
+            above = dz[:, :d_in]
+        dxs[:, t] = above
+    return dgates, dxs, torch.stack(dh), torch.stack(dc)
+
+
+def _layer_inputs(xs: torch.Tensor, h0: torch.Tensor, res: Residuals, l: int):
+    """z = [input_t, h_{t-1}] of layer l at every (b, t), as the backward
+    reads it: layer 0 takes xs; layer l > 0 takes o·tanh(c) of the layer
+    below, rebuilt from the residuals; h_{t-1} comes from the residuals, and
+    from h0 at t = 0."""
+    hidden = h0.shape[-1]
+    if l == 0:
+        inp = xs
+    else:
+        inp = res.gs[l - 1][..., 3 * hidden:].float() * torch.tanh(res.cs[l - 1].float())
+    h_prev = torch.cat([h0[l][:, None], res.hs[l][:, :-1].float()], dim=1)
+    return torch.cat([inp, h_prev], dim=-1)
+
+
+def _dw_reference(
+    params: Sequence[LSTMParams], xs: torch.Tensor, h0: torch.Tensor,
+    res: Residuals, dgates: Sequence[torch.Tensor],
+) -> List[LSTMParams]:
+    """Plain version of the dW/db reduction kernel."""
+    _no_tf32(xs, "lstm_dw plain version")
+    out = []
+    for l, p in enumerate(params):
+        z = _layer_inputs(xs, h0, res, l).reshape(-1, p.w.shape[0])
+        dg = dgates[l].reshape(-1, p.w.shape[1])
+        out.append(LSTMParams(w=z.t() @ dg, b=dg.sum(dim=0)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def kernel_rows(hidden: int, layers: int, d: int) -> int:
+    """Batch rows per block of the recurrence kernels.
+
+    A thread owns 4 rows x 4 hidden units, so a block of R rows has
+    (R / 4) · (hidden / 4) threads. The training batch is small next to
+    serving's, so the block takes 16 rows: B = 4096 then gives 256 blocks of
+    128 threads on the 132 SMs, two resident per SM (``csrc/lstm_train.cu``
+    says why). Rows are halved until the block's shared memory fits; raises
+    for shapes the kernels do not take."""
+    if hidden < 32 or hidden % 32:
+        raise ValueError(f"the kernels need hidden % 32 == 0, got {hidden}")
+    if not 1 <= layers <= MAX_LAYERS:
+        raise ValueError(f"the kernels take 1..{MAX_LAYERS} layers, got {layers}")
+    rows = min(16, _MAX_THREADS // (hidden // _TJ) * _TR)
+
+    def smem(r):  # the larger of the forward's and the backward's needs
+        return 4 * r * max(2 * layers * hidden + d, 4 * hidden + 2 * layers * hidden)
+
+    while rows >= _TR and smem(rows) > _SMEM_LIMIT:
+        rows //= 2
+    if rows < _TR:
+        raise ValueError(
+            f"layers={layers}, hidden={hidden}: the per-layer state does not "
+            f"fit one block's shared memory"
+        )
+    return rows
+
+
+def dw_splits(batch: int, t_len: int, hidden: int, d: int, n_sm: int) -> int:
+    """How many slices of the (b, t) rows the dW reduction is split into:
+    enough that the full 128 x 128 dW tiles of the first layer alone give
+    two blocks per SM, with at least 64 rows per slice."""
+    tiles = (4 * hidden // _DW_TILE) * max(1, (d + hidden) // _DW_TILE)
+    want = -(-2 * n_sm // tiles)
+    return max(1, min(want, batch * t_len // 64))
+
+
+def _check(params, xs, h0, c0, residual_dtype=torch.float32):
+    if xs.dim() != 3:
+        raise ValueError(f"xs must be (B, T, D), got {tuple(xs.shape)}")
+    batch, t_len, d = xs.shape
+    layers = len(params)
+    if layers < 1 or batch < 1 or t_len < 1:
+        raise ValueError(f"empty call: {layers} layers, xs {tuple(xs.shape)}")
+    hidden = h0.shape[-1]
+    if residual_dtype not in RESIDUAL_DTYPES:
+        raise TypeError(f"residual_dtype must be one of {RESIDUAL_DTYPES}, got {residual_dtype}")
+    expect = [(xs, (batch, t_len, d)), (h0, (layers, batch, hidden)),
+              (c0, (layers, batch, hidden))]
+    for l, p in enumerate(params):
+        in_l = d if l == 0 else hidden
+        expect += [(p.w, (in_l + hidden, 4 * hidden)), (p.b, (4 * hidden,))]
+    for t, shape in expect:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the f32 tier takes float32 tensors, got {t.dtype}")
+        if t.device != xs.device:
+            raise ValueError(f"tensors on {t.device} and {xs.device}")
+    if xs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels run on cpu or cuda, not {xs.device}")
+
+
+def _check_card(tensors):
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"tensor of shape {tuple(t.shape)} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("the kernels read 16-byte vectors: tensors must be 16-byte aligned")
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def _n_sm(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _raise_on(err: int, name: str):
+    if err:
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            f"{_library().lstm_train_error_string(err).decode()} (cuda error {err})"
+        )
+
+
+def lstm_fwd(
+    params: Sequence[LSTMParams], xs: torch.Tensor, h0: torch.Tensor,
+    c0: torch.Tensor, residual_dtype: torch.dtype = torch.float32,
+) -> Residuals:
+    """Forward recurrence → the residuals."""
+    _check(params, xs, h0, c0, residual_dtype)
+    if xs.device.type == "cpu":
+        return _forward_reference(params, xs, h0, c0, residual_dtype)
+    batch, t_len, d = xs.shape
+    hidden, layers = h0.shape[-1], len(params)
+    rows = kernel_rows(hidden, layers, d)
+    res = Residuals(
+        [torch.empty((batch, t_len, hidden), device=xs.device, dtype=residual_dtype) for _ in params],
+        [torch.empty((batch, t_len, hidden), device=xs.device, dtype=residual_dtype) for _ in params],
+        [torch.empty((batch, t_len, 4 * hidden), device=xs.device, dtype=residual_dtype) for _ in params],
+    )
+    ws, bs = [p.w for p in params], [p.b for p in params]
+    _check_card([xs, h0, c0, *ws, *bs, *res.hs, *res.cs, *res.gs])
+    lib = _library()
+    with torch.cuda.device(xs.device):
+        err = lib.lstm_fwd(
+            xs.data_ptr(), h0.data_ptr(), c0.data_ptr(), _ptrs(ws), _ptrs(bs),
+            _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs),
+            batch, t_len, d, hidden, layers, rows,
+            int(residual_dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "lstm_fwd")
+    lstm_fwd.launches += 1
+    return res
+
+
+lstm_fwd.launches = 0
+
+
+def _check_bwd(params, res, batch, t_len, d, hidden, f32s):
+    """Shapes and types of a backward kernel's inputs: f32 params and
+    ``f32s`` (tensor, shape) pairs, and residuals of one type that match."""
+    layers = len(params)
+    expect = list(f32s)
+    for l, p in enumerate(params):
+        in_l = d if l == 0 else hidden
+        expect += [(p.w, (in_l + hidden, 4 * hidden)), (p.b, (4 * hidden,))]
+    dev = expect[0][0].device
+    for t, shape in expect:
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"expected f32 {shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+    rdt = res.hs[0].dtype
+    if rdt not in RESIDUAL_DTYPES or not len(res.hs) == len(res.cs) == len(res.gs) == layers:
+        raise ValueError(f"residuals of {len(res.hs)} layers in {rdt} do not match the call")
+    for l in range(layers):
+        for t, w in ((res.hs[l], hidden), (res.cs[l], hidden), (res.gs[l], 4 * hidden)):
+            if tuple(t.shape) != (batch, t_len, w) or t.dtype != rdt or t.device != dev:
+                raise ValueError(f"residual {t.dtype} {tuple(t.shape)} on {t.device} does not match the call")
+
+
+def _transposed(params: Sequence[LSTMParams], d: int) -> List[torch.Tensor]:
+    """Per layer, the weights the backward's ``dgates · Wᵀ`` reads row by
+    row: layer 0 ``W[D:]ᵀ`` (4H, H), which gives dh; layer l > 0
+    ``[W[H:]; W[:H]]ᵀ`` (4H, 2H), which gives dh and the gradient of the
+    layer's input. (Layer 0's input gradient reads ``W[:D]`` as it is.)"""
+    out = []
+    for l, p in enumerate(params):
+        d_in = d if l == 0 else p.w.shape[1] // 4
+        w = p.w[d_in:] if l == 0 else torch.cat([p.w[d_in:], p.w[:d_in]])
+        out.append(w.t().contiguous())
+    return out
+
+
+def lstm_bwd(
+    params: Sequence[LSTMParams], c0: torch.Tensor, res: Residuals,
+    dhs_top: torch.Tensor, dhT: torch.Tensor, dcT: torch.Tensor,
+) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward recurrence → (dgates per layer (B, T, 4H), dxs (B, T, D),
+    dh0, dc0 (L, B, H)), all f32."""
+    batch, t_len, hidden = dhs_top.shape
+    layers = len(params)
+    d = params[0].w.shape[0] - hidden
+    _check_bwd(params, res, batch, t_len, d, hidden, [
+        (dhs_top, (batch, t_len, hidden)), (dhT, (layers, batch, hidden)),
+        (dcT, (layers, batch, hidden)), (c0, (layers, batch, hidden)),
+    ])
+    rdt = res.hs[0].dtype
+    if dhs_top.device.type == "cpu":
+        return _bwd_recurrence_reference(params, c0, res, dhs_top, dhT, dcT)
+    rows = kernel_rows(hidden, layers, d)
+    dev = dhs_top.device
+    wt = _transposed(params, d)
+    dgates = [torch.empty((batch, t_len, 4 * hidden), device=dev) for _ in params]
+    dxs = torch.empty((batch, t_len, d), device=dev)
+    dh0 = torch.empty((layers, batch, hidden), device=dev)
+    dc0 = torch.empty((layers, batch, hidden), device=dev)
+    ws = [p.w for p in params]
+    _check_card([dhs_top, dhT, dcT, c0, *ws, *wt, *res.cs, *res.gs, *dgates, dxs, dh0, dc0])
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.lstm_bwd(
+            dhs_top.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), c0.data_ptr(),
+            _ptrs(ws), _ptrs(wt), _ptrs(res.cs), _ptrs(res.gs), _ptrs(dgates),
+            dxs.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            batch, t_len, d, hidden, layers, rows, int(rdt == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "lstm_bwd")
+    lstm_bwd.launches += 1
+    return dgates, dxs, dh0, dc0
+
+
+lstm_bwd.launches = 0
+
+
+def lstm_dw(
+    params: Sequence[LSTMParams], xs: torch.Tensor, h0: torch.Tensor,
+    res: Residuals, dgates: Sequence[torch.Tensor],
+) -> List[LSTMParams]:
+    """dW/db reduction → per layer ``LSTMParams(dW, db)``, f32."""
+    batch, t_len, d = xs.shape
+    hidden, layers = h0.shape[-1], len(params)
+    _check_bwd(params, res, batch, t_len, d, hidden, [
+        (xs, (batch, t_len, d)), (h0, (layers, batch, hidden)),
+        *((g, (batch, t_len, 4 * hidden)) for g in dgates),
+    ])
+    if len(dgates) != layers:
+        raise ValueError(f"{len(dgates)} dgates for {layers} layers")
+    if xs.device.type == "cpu":
+        return _dw_reference(params, xs, h0, res, dgates)
+    if batch * t_len >= 2**31:
+        raise ValueError(f"B·T = {batch * t_len} rows do not fit the kernel's 32-bit row index")
+    dev = xs.device
+    splits = dw_splits(batch, t_len, hidden, d, _n_sm(dev))
+    rows_max = max(d + hidden, 2 * hidden if layers > 1 else 0)  # in_l + H
+    partial = torch.empty((splits, rows_max + 1, 4 * hidden), device=dev)
+    dws = [torch.empty_like(p.w) for p in params]
+    dbs = [torch.empty_like(p.b) for p in params]
+    _check_card([xs, h0, *res.hs, *res.cs, *res.gs, *dgates, partial, *dws, *dbs])
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.lstm_dw(
+            xs.data_ptr(), h0.data_ptr(), _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs),
+            _ptrs(dgates), partial.data_ptr(), _ptrs(dws), _ptrs(dbs),
+            batch, t_len, d, hidden, layers, splits, int(res.hs[0].dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "lstm_dw")
+    lstm_dw.launches += 1
+    return [LSTMParams(w=w, b=b) for w, b in zip(dws, dbs)]
+
+
+lstm_dw.launches = 0
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernels' library, built at first use and loaded once."""
+    lib = _build.load("lstm_train")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    arr = ctypes.POINTER(ctypes.c_void_p)
+    lib.lstm_fwd.argtypes = [vp, vp, vp, arr, arr, arr, arr, arr] + [i32] * 7 + [vp]
+    lib.lstm_bwd.argtypes = [vp, vp, vp, vp, arr, arr, arr, arr, arr, vp, vp, vp] + [i32] * 7 + [vp]
+    lib.lstm_dw.argtypes = [vp, vp, arr, arr, arr, arr, vp, arr, arr] + [i32] * 7 + [vp]
+    for f in (lib.lstm_fwd, lib.lstm_bwd, lib.lstm_dw):
+        f.restype = i32
+    lib.lstm_train_error_string.argtypes = [i32]
+    lib.lstm_train_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# the differentiable function
+# ---------------------------------------------------------------------------
+
+
+class _LSTMSeqStates(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, residual_dtype, xs, h0, c0, *flat):
+        params = [LSTMParams(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
+        res = lstm_fwd(params, xs, h0, c0, residual_dtype)
+        ctx.layers = len(params)
+        ctx.save_for_backward(xs, h0, c0, *flat, *res.hs, *res.cs, *res.gs)
+        hT = torch.stack([h[:, -1] for h in res.hs]).float()
+        cT = torch.stack([c[:, -1] for c in res.cs]).float()
+        return res.hs[-1].float(), hT, cT
+
+    @staticmethod
+    def backward(ctx, dhs_top, dhT, dcT):
+        n = ctx.layers
+        xs, h0, c0, *rest = ctx.saved_tensors
+        flat, rest = rest[: 2 * n], rest[2 * n:]
+        params = [LSTMParams(flat[i], flat[i + 1]) for i in range(0, 2 * n, 2)]
+        res = Residuals(list(rest[:n]), list(rest[n: 2 * n]), list(rest[2 * n:]))
+        dgates, dxs, dh0, dc0 = lstm_bwd(
+            params, c0, res, dhs_top.float().contiguous(),
+            dhT.float().contiguous(), dcT.float().contiguous(),
+        )
+        dparams = lstm_dw(params, xs, h0, res, dgates)
+        flat_grads = [g for p in dparams for g in (p.w, p.b)]
+        return (None, dxs, dh0, dc0, *flat_grads)
+
+
+def lstm_seq_states(
+    params: Sequence[LSTMParams],
+    xs: torch.Tensor,
+    h0: torch.Tensor,
+    c0: torch.Tensor,
+    residual_dtype: torch.dtype = torch.float32,
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stacked LSTM over a known sequence from initial states (L, B, H)
+    → (hs_top (B, T, H), hT (L, B, H), cT (L, B, H)), f32; differentiable
+    in params, xs, h0 and c0 through the kernels' backward.
+
+    Only f32 compute is ported: ``compute_dtype=torch.bfloat16`` (the JAX
+    ``train_compute`` tier) raises."""
+    if compute_dtype != torch.float32:
+        raise NotImplementedError(
+            f"lstm_seq_states: only f32 compute is ported, got "
+            f"compute_dtype={compute_dtype} (ROADMAP.md Queue 2, the "
+            f"lstm_seq_states bf16-compute tier)"
+        )
+    _check(params, xs, h0, c0, residual_dtype)
+    flat = [t for p in params for t in (p.w, p.b)]
+    return _LSTMSeqStates.apply(residual_dtype, xs, h0, c0, *flat)
+
+
+def lstm_seq(
+    params: Sequence[LSTMParams], xs: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Zero-initial-state convenience wrapper → top-layer outputs."""
+    hidden = params[0].w.shape[1] // 4
+    z = xs.new_zeros((len(params), xs.shape[0], hidden))
+    hs_top, _, _ = lstm_seq_states(params, xs, z, z, torch.float32, compute_dtype)
+    return hs_top

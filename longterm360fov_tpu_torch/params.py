@@ -15,7 +15,7 @@ import torch
 
 from .models.cell import LSTMParams
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "tree_leaves", "tree_unflatten"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -47,3 +47,27 @@ def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
             "b": _tensor(tree["proj"]["b"], device),
         },
     }
+
+
+def tree_leaves(params: Dict[str, Any]) -> list:
+    """The tensors of a seq2seq params tree in ``jax.tree.leaves`` order:
+    decoder layers (w, b), encoder layers (w, b), then proj b, proj w
+    (dict keys sorted, as JAX flattens them)."""
+    out = []
+    for stack in (params["decoder"], params["encoder"]):
+        for p in stack:
+            out += [p.w, p.b]
+    return out + [params["proj"]["b"], params["proj"]["w"]]
+
+
+def tree_unflatten(like: Dict[str, Any], leaves) -> Dict[str, Any]:
+    """Inverse of :func:`tree_leaves`, with the structure of ``like``."""
+    it = iter(leaves)
+
+    def stack(layers):
+        return [LSTMParams(w=next(it), b=next(it)) for _ in layers]
+
+    dec = stack(like["decoder"])
+    enc = stack(like["encoder"])
+    b = next(it)
+    return {"encoder": enc, "decoder": dec, "proj": {"w": next(it), "b": b}}

@@ -19,8 +19,12 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke  # noqa: F401
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "longterm360fov_tpu") and sys.modules[m] is not None)
-print(len(names), loaded)
+print(len(names), loaded, ",".join(names))
 """
+
+# the training slice's modules, beside the serving slice's
+_TRAIN_SLICE = ("baselines", "checkpoint", "data", "evaluate", "losses",
+                "ops.lstm_train", "traces", "train")
 
 
 def test_port_imports_without_jax():
@@ -30,6 +34,9 @@ def test_port_imports_without_jax():
         env={**os.environ, "PYTHONPATH": ROOT},
     )
     assert proc.returncode == 0, proc.stderr
-    count, loaded = proc.stdout.split(" ", 1)
-    assert int(count) >= 14, proc.stdout  # every module of the package
+    count, loaded, names = proc.stdout.split(" ")
+    assert int(count) >= 22, proc.stdout  # every module of the package
     assert loaded.strip() == "[]"
+    names = names.strip().split(",")
+    for mod in _TRAIN_SLICE:
+        assert f"longterm360fov_tpu_torch.{mod}" in names
