@@ -2,41 +2,50 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and fails without one; it never continues on the CPU. Phases,
-one line each:
+one line each or more:
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
 2. the build of every kernel source in ``csrc/`` (one nvcc each, started
    together), with its time, registers and spills;
-3. each kernel against its plain PyTorch version, at the full width of
-   preset ``seq2seq-tf-30`` (hidden 128, 30 + 30 steps), at a batch that is
-   not a multiple of the kernels' row tiles, with 1 and 2 layers:
-   ``fused_serve``, and the ``lstm_seq_states`` forward, backward-recurrence
-   and dW-reduction kernels at B = 4099 and B = 4096 with f32 and bf16
-   residuals (the backward fed random upstream gradients);
-4. the serving main path: ``serving.make_serve_fn`` behind a
-   ``DynamicBatcher`` answers 64 concurrent single-viewer requests and one
-   bulk request. Every answer must equal the direct batched call and the
-   numpy oracle, and the kernel launch counts, zeroed just before, must have
-   advanced;
-5. ``serve-bench`` throughput, kernel and plain, at B = 16384 and at
-   ``bench.py``'s B = 262144;
-6. the training main path: ``train.train_loop`` on ``seq2seq-tf-30`` from
-   the synthetic store at B = 4096 with ``train_impl="fused"``: the loss
-   falls, logged steps evaluate through ``fused_serve``, a checkpoint is
-   written, and a resume from it equals the uninterrupted run; the training
-   kernels' launch counts, zeroed just before, must have advanced. Then one
-   train step through the kernels against one through plain autograd, from
-   the same state on the same batch;
-7. train steps/s and windows/s at B = 4096, kernel path against plain path.
+3. each kernel against its plain PyTorch version at full width (hidden 128,
+   30 + 30 steps), at batches that are not a multiple of the kernels' row
+   tiles: ``fused_serve`` without and with a static context (C = 128),
+   ``fused_encode``, the ``lstm_seq_states`` forward, backward-recurrence and
+   dW-reduction kernels, and the ``ss_decode`` forward, backward-recurrence,
+   dW and dproj kernels (1 and 2 layers, with and without a context, f32
+   and bf16 residuals, Bernoulli, all-teacher and all-model coins);
+4. the ``seq2seq-tf-30`` serving main path: ``serving.make_serve_fn`` behind
+   a ``DynamicBatcher`` answers 64 concurrent single-viewer requests and one
+   bulk request; every answer equals the direct batched call and the numpy
+   oracle. Then serve-bench and ``fused_serve`` alone, kernel against plain;
+5. the ``seq2seq-tf-30`` training main path: ``train.train_loop`` at
+   B = 4096 through the ``lstm_seq_states`` kernels, with evaluation,
+   checkpoints and a resume that equals the uninterrupted run, one step
+   through the kernels against plain autograd, the step's speed, and the
+   training kernels alone against plain and cuDNN/cuBLAS;
+6. the ``stacked-ss-crossuser`` serving main path: the batcher with K = 4
+   peer futures per request (some with fewer, some with none) in front of
+   ``fused_encode`` + the static-context ``fused_serve``; every answer
+   equals the port's plain path on the CPU and, given the same peer
+   context, the numpy oracle. Then serve-bench at B = 16384 and 65536, and
+   both kernels alone against plain (``fused_encode`` also against cuDNN);
+7. the ``stacked-ss-crossuser`` training main path: ``train.train_loop`` at
+   B = 4096 with K = 4 peers and ``teacher_prob`` annealing 1 → 0, through
+   ``ss_decode`` (decoder) and ``lstm_seq_states`` (encoder and peers), with
+   evaluation through the serving kernels, checkpoints, a resume that equals
+   the uninterrupted run (coins included), one step through the kernels
+   against plain autograd with the same coins, the step's speed, and the
+   ``ss_decode`` kernels alone against plain and cuBLAS.
 
-Then each kernel alone against its plain version at the main paths' shapes
-(``fused_serve`` checked at both serve batches before it is timed), one JSON
-line on the kernels (launches in phase 4 or 6, max error over every check,
-kernel and plain times, CUDA events), and last the contract line
+Each main path runs with every launch counter set to 0 just before it and
+read just after; a kernel of the path that never launched fails the run.
+Then one JSON line on the kernels (launches on their main path, max error
+over every check, kernel, plain and library times by CUDA events, and the
+bound: the larger of the work's FLOP over the f32 FMA peak and its bytes
+over the memory rate), and last the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
-import dataclasses
 import json
 import subprocess
 import sys
@@ -47,56 +56,58 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from longterm360fov_tpu_torch import checkpoint, cli, data, oracle, serving, traces, train, windows
+from longterm360fov_tpu_torch import checkpoint, cli, data, infer, oracle, serving, traces, train, windows
 from longterm360fov_tpu_torch.config import get_preset
-from longterm360fov_tpu_torch.models import get_family
+from longterm360fov_tpu_torch.models import cross_user, get_family
 from longterm360fov_tpu_torch.models.cell import LSTMParams
-from longterm360fov_tpu_torch.ops import _build, fused_lstm, lstm_train
+from longterm360fov_tpu_torch.ops import _build, fused_lstm, lstm_ss, lstm_train
 from longterm360fov_tpu_torch.params import params_from_numpy, tree_leaves
 
 PRESET = "seq2seq-tf-30"
-KERNEL_TOL = 1e-4  # kernel vs plain, normalized outputs, f32 after 60 steps
-ORACLE_TOL = 1e-4  # batcher answers vs the numpy oracle, unit xyz
-# lstm_seq_states kernels vs plain: the forward within 1e-5 absolute with f32
-# residuals (exact f32 FMAs in another order); with bf16 residuals the same
-# f32 values round to bf16, and a 1e-7 difference may cross a rounding
-# boundary, so within one bf16 step (at most 2^-7 of the value). The backward, fed
-# the same residuals, within 1e-4 of max|plain| per output: dW sums
+CU_PRESET = "stacked-ss-crossuser"
+KERNEL_TOL = 1e-4  # serve kernel vs plain, normalized outputs, f32 after 60 steps
+ORACLE_TOL = 1e-4  # batcher answers vs the numpy oracle or the CPU plain path, unit xyz
+# encode kernel vs plain: exact f32 FMAs in another order over 30 steps of a
+# bounded state (|h| < 1)
+ENC_TOL = 1e-5
+# training kernels vs plain: the forward within 1e-5 absolute with f32
+# residuals (exact f32 FMAs in another order; ss_decode's ys too, since its
+# feedback is f32 on both sides); with bf16 residuals the same f32 values
+# round to bf16, and a 1e-7 difference may cross a rounding boundary, so
+# within one bf16 step (at most 2^-7 of the value). The backward, fed the
+# same residuals, within 1e-4 of max|plain| per output: the reductions sum
 # B·T = 122,970 terms in another order.
 FWD_TOL = 1e-5
 BWD_REL_TOL = 1e-4
-TRAIN_B = 4096  # the batch scripts/bench_train.py trains seq2seq-tf-30 at
+TRAIN_B = 4096  # the batch scripts/bench_train.py trains both presets at
+F32_FLOPS = 67e12  # H100 SXM f32 FMA peak outside the tensor cores (data sheet)
+HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
+
+SERVE_SRC = "longterm360fov_tpu_torch/csrc/fused_serve.cu"
 LSTM_SRC = "longterm360fov_tpu_torch/csrc/lstm_train.cu"
+SS_SRC = "longterm360fov_tpu_torch/csrc/lstm_ss.cu"
+S2S_SERVE, S2S_TRAIN = "serve seq2seq-tf-30", "train seq2seq-tf-30"
+CU_SERVE, CU_TRAIN = "serve stacked-ss-crossuser", "train stacked-ss-crossuser"
+# one entry per kernel: "path" is the main path whose run gives its launches
 KERNELS = [
-    {
-        "name": "fused_serve",
-        "route": "cuda",
-        "source": "longterm360fov_tpu_torch/csrc/fused_serve.cu",
-        "replaces": "longterm360fov_tpu/ops/fused_lstm.py:503",
-        "wrapper": fused_lstm.fused_serve,
-    },
-    {
-        "name": "lstm_seq_states_fwd",
-        "route": "cuda",
-        "source": LSTM_SRC,
-        "replaces": "longterm360fov_tpu/ops/lstm_train.py:172",
-        "wrapper": lstm_train.lstm_fwd,
-    },
-    {
-        "name": "lstm_seq_states_bwd",
-        "route": "cuda",
-        "source": LSTM_SRC,
-        "replaces": "longterm360fov_tpu/ops/lstm_train.py:396",
-        "wrapper": lstm_train.lstm_bwd,
-    },
-    {
-        "name": "lstm_seq_states_dw",
-        "route": "cuda",
-        "source": LSTM_SRC,
-        "replaces": "longterm360fov_tpu/ops/lstm_train.py:396",
-        "wrapper": lstm_train.lstm_dw,
-    },
+    ("fused_serve", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:503", fused_lstm.fused_serve, S2S_SERVE),
+    ("fused_serve_ctx", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:503", fused_lstm.fused_serve, CU_SERVE),
+    ("fused_encode", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:741", fused_lstm.fused_encode, CU_SERVE),
+    ("lstm_seq_states_fwd", LSTM_SRC, "longterm360fov_tpu/ops/lstm_train.py:172", lstm_train.lstm_fwd, S2S_TRAIN),
+    ("lstm_seq_states_bwd", LSTM_SRC, "longterm360fov_tpu/ops/lstm_train.py:396", lstm_train.lstm_bwd, S2S_TRAIN),
+    ("lstm_seq_states_dw", LSTM_SRC, "longterm360fov_tpu/ops/lstm_train.py:396", lstm_train.lstm_dw, S2S_TRAIN),
+    ("ss_decode_fwd", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:175", lstm_ss.ss_fwd, CU_TRAIN),
+    ("ss_decode_bwd", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:404", lstm_ss.ss_bwd, CU_TRAIN),
+    ("ss_decode_dw", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:404", lstm_ss.ss_dw, CU_TRAIN),
+    ("ss_decode_dproj", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:404", lstm_ss.ss_dproj, CU_TRAIN),
 ]
+WRAPPERS = {name: wrapper for name, _, _, wrapper, _ in KERNELS}
+ERRS = {name: 0.0 for name in WRAPPERS}  # max abs error vs plain over every check
+TIMES = {}  # kernel name -> {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}
+
+
+def note_err(name, err):
+    ERRS[name] = max(ERRS[name], float(err))
 
 
 def unit_pasts(rng, n, h_in):
@@ -117,33 +128,156 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def check_kernel(cfg, dev, batch, layers, seed):
-    """fused_serve against fused_serve_reference on the same inputs."""
-    mcfg = dataclasses.replace(cfg.model, layers=layers)
-    p = params_from_numpy(oracle.init_params_np(seed, mcfg), dev)
-    past = torch.as_tensor(unit_pasts(np.random.default_rng(seed), batch, mcfg.h_in), device=dev)
-    past_n, _, _ = windows.normalize_window(past)
-    args = (p["encoder"], p["decoder"], p["proj"]["w"], p["proj"]["b"], past_n, mcfg.h_out)
-    out = fused_lstm.fused_serve(*args)
+def in_turns(fns, iters):
+    """ms per call of each of ``fns`` ({name: fn}), timed in turns: the order
+    of ``fns``, then backwards, and the two averaged (plain, kernel, kernel,
+    plain), so that a drift of the card's clock falls on every name alike."""
+    ms = dict.fromkeys(fns, 0.0)
+    for name in list(fns) + list(reversed(fns)):
+        ms[name] += cuda_ms(fns[name], iters[name]) / 2
+    return ms
+
+
+def bound(flop, reads, writes):
+    """The least time the card could take for this work: the larger of its
+    FLOP over the f32 FMA peak and its bytes (every input read once, every
+    output written once) over the memory rate → (ms, "operations" or
+    "bytes")."""
+    nbytes = sum(t.numel() * t.element_size() for t in reads + writes if t is not None)
+    ops_ms, bytes_ms = flop / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def stack_flop(batch, t_len, ins, hidden):
+    """FLOP of one pass of the stacked gate products: 2·B·T·Σ_l (in_l + H)·4H
+    (the forward's [x, h]·W, the backward's dgates·Wᵀ, the dW reduction)."""
+    return sum(2 * batch * t_len * (i + hidden) * 4 * hidden for i in ins)
+
+
+def record(name, ms, flop, reads, writes):
+    """Keep a kernel's times and its bound for the kernels line."""
+    b_ms, b_by = bound(flop, reads, writes)
+    TIMES[name] = {"ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms.get("library"),
+                   "bound_ms": b_ms, "bound_by": b_by}
+
+
+def drive(path, fn, also=()):
+    """Run one main path with every launch counter at 0 just before and read
+    just after; fail if a kernel of the path (those whose launches it gives,
+    and ``also``) never launched."""
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    out = fn()
     torch.cuda.synchronize()
-    ref = fused_lstm.fused_serve_reference(*args)
-    if out.shape != (batch, mcfg.h_out, mcfg.d) or not torch.isfinite(out).all():
-        raise AssertionError(f"kernel output {tuple(out.shape)} not finite or misshapen")
-    return (out - ref).abs().max().item()
+    names = [name for name, *_, p in KERNELS if p == path] + list(also)
+    launches = {name: WRAPPERS[name].launches for name in names}
+    print(f"{path}: main path launches {json.dumps(launches)}", flush=True)
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the main path '{path}' never launched kernel {name}")
+    return out, launches
 
 
-def lstm_case(dev, batch, layers, seed, t=30, d=3, h=128):
-    """Random full-width weights (Glorot-uniform, small biases), inputs,
-    initial states and upstream gradients from a numpy seed."""
-    rng = np.random.default_rng(seed)
+def stack(rng, dev, in0, layers, h=128):
+    """Glorot-uniform full-width LSTM layers with small biases."""
     ps = []
     for l in range(layers):
-        fan = (d if l == 0 else h) + h
+        fan = (in0 if l == 0 else h) + h
         lim = np.sqrt(6 / (fan + 4 * h))
         ps.append(LSTMParams(
             torch.tensor(rng.uniform(-lim, lim, size=(fan, 4 * h)).astype(np.float32), device=dev),
             torch.tensor(rng.normal(size=4 * h).astype(np.float32) * 0.1, device=dev)))
-    ts = [torch.tensor(rng.normal(size=s).astype(np.float32) * sc, device=dev)
+    return ps
+
+
+def randn(rng, dev, shape, scale=1.0):
+    return torch.tensor(rng.normal(size=shape).astype(np.float32) * scale, device=dev)
+
+
+def family_fns(fam, **kw):
+    """The training hooks of a family, as ``cli train`` passes them; ``kw``
+    (a residual dtype) goes to its fused forward."""
+    def bind(fn):
+        return None if fn is None else (lambda *a, **k: fn(*a, **kw, **k))
+    return dict(extras_fn=getattr(fam, "batch_extras", None),
+                fused_tf_fn=bind(getattr(fam, "apply_fused_tf", None)),
+                fused_ss_fn=bind(getattr(fam, "apply_fused_ss", None)))
+
+
+# --------------------------------------------------------------- phase 3: kernels vs plain
+
+
+def check_serve(dev, batch, layers, ctx_dim, seed, t=30):
+    """fused_serve (with a static context when ctx_dim > 0) against
+    fused_serve_reference on the same inputs → max abs error."""
+    rng = np.random.default_rng(seed)
+    enc, dec = stack(rng, dev, 3, layers), stack(rng, dev, 3 + ctx_dim, layers)
+    pw, pb = randn(rng, dev, (128, 3), 0.1), randn(rng, dev, (3,), 0.1)
+    past = torch.as_tensor(unit_pasts(rng, batch, t), device=dev)
+    past_n = windows.normalize_window(past)[0].contiguous()
+    ctx = randn(rng, dev, (batch, ctx_dim)) if ctx_dim else None
+    out = fused_lstm.fused_serve(enc, dec, pw, pb, past_n, t, context=ctx)
+    torch.cuda.synchronize()
+    ref = fused_lstm.fused_serve_reference(enc, dec, pw, pb, past_n, t, ctx)
+    if out.shape != (batch, t, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f"fused_serve output {tuple(out.shape)} not finite or misshapen")
+    err = (out - ref).abs().max().item()
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"fused_serve disagrees with its plain version (B={batch}, L={layers}, "
+                             f"C={ctx_dim}): {err:.3e}")
+    note_err("fused_serve_ctx" if ctx_dim else "fused_serve", err)
+    return err
+
+
+def check_encode(dev, batch, layers, seed, t=30):
+    """fused_encode against fused_encode_reference → max abs error."""
+    rng = np.random.default_rng(seed)
+    ps = stack(rng, dev, 3, layers)
+    xs = randn(rng, dev, (batch, t, 3), 0.3)
+    out = fused_lstm.fused_encode(ps, xs)
+    torch.cuda.synchronize()
+    ref = fused_lstm.fused_encode_reference(ps, xs)
+    if out.shape != (batch, 128) or not torch.isfinite(out).all():
+        raise AssertionError(f"fused_encode output {tuple(out.shape)} not finite or misshapen")
+    err = (out - ref).abs().max().item()
+    if not err <= ENC_TOL:
+        raise AssertionError(f"fused_encode disagrees with its plain version (B={batch}, L={layers}): {err:.3e}")
+    note_err("fused_encode", err)
+    return err
+
+
+def check_fwd(name, pairs, rd, what):
+    """Forward outputs against their plain versions: FWD_TOL absolute, plus
+    one bf16 step where the output is a bf16 residual."""
+    err = 0.0
+    for a, b in pairs:
+        diff = (a.float() - b.float()).abs()
+        tol = FWD_TOL if a.dtype == torch.float32 else FWD_TOL + 2.0 ** -7 * b.float().abs()
+        if a.shape != b.shape or not torch.isfinite(a.float()).all() or not (diff <= tol).all():
+            raise AssertionError(f"{name} disagrees with its plain version ({what}, {rd})")
+        err = max(err, diff.max().item())
+    note_err(name, err)
+    return err
+
+
+def check_bwd(name, pairs, what):
+    """Gradients against their plain versions: BWD_REL_TOL of max|plain|."""
+    err = 0.0
+    for a, b in pairs:
+        diff = (a - b).abs().max().item()
+        if a.shape != b.shape or not torch.isfinite(a).all() or not diff <= BWD_REL_TOL * b.abs().max().item():
+            raise AssertionError(f"{name} disagrees with its plain version ({what}): {diff:.3e}")
+        err = max(err, diff)
+    note_err(name, err)
+    return err
+
+
+def lstm_case(dev, batch, layers, seed, t=30, d=3, h=128):
+    """Random full-width weights, inputs, initial states and upstream
+    gradients from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    ps = stack(rng, dev, d, layers, h)
+    ts = [randn(rng, dev, s, sc)
           for s, sc in (((batch, t, d), 0.3), ((layers, batch, h), 0.3), ((layers, batch, h), 0.3),
                         ((batch, t, h), 1.0), ((layers, batch, h), 1.0), ((layers, batch, h), 1.0))]
     return ps, ts[:3], ts[3:]
@@ -153,166 +287,122 @@ def check_lstm_kernels(dev, batch, layers, rd, seed):
     """The three lstm_seq_states kernels against their plain versions on the
     same inputs → max abs error of each; raises past the tolerances."""
     ps, (xs, h0, c0), up = lstm_case(dev, batch, layers, seed)
+    what = f"B={batch}, L={layers}"
     res = lstm_train.lstm_fwd(ps, xs, h0, c0, rd)
     ref = lstm_train._forward_reference(ps, xs, h0, c0, rd)
     torch.cuda.synchronize()
-    fwd = 0.0
-    for a, b in zip(res.hs + res.cs + res.gs, ref.hs + ref.cs + ref.gs):
-        diff = (a.float() - b.float()).abs()
-        tol = FWD_TOL if rd == torch.float32 else FWD_TOL + 2.0 ** -7 * b.float().abs()
-        if a.shape != b.shape or not torch.isfinite(a.float()).all() or not (diff <= tol).all():
-            raise AssertionError(f"lstm_fwd disagrees with its plain version (B={batch}, L={layers}, {rd})")
-        fwd = max(fwd, diff.max().item())
+    errs = {"fwd": check_fwd("lstm_seq_states_fwd", list(zip(res.hs + res.cs + res.gs,
+                                                                ref.hs + ref.cs + ref.gs)), rd, what)}
     dg, dxs, dh0, dc0 = lstm_train.lstm_bwd(ps, c0, res, *up)
     dg_p, dxs_p, dh0_p, dc0_p = lstm_train._bwd_recurrence_reference(ps, c0, res, *up)
     dps = lstm_train.lstm_dw(ps, xs, h0, res, dg_p)
     dps_p = lstm_train._dw_reference(ps, xs, h0, res, dg_p)
     torch.cuda.synchronize()
-    errs = {"fwd": fwd, "bwd": 0.0, "dw": 0.0}
-    for kind, pairs in (
-        ("bwd", list(zip(dg, dg_p)) + [(dxs, dxs_p), (dh0, dh0_p), (dc0, dc0_p)]),
-        ("dw", [(a.w, b.w) for a, b in zip(dps, dps_p)] + [(a.b, b.b) for a, b in zip(dps, dps_p)]),
-    ):
-        for a, b in pairs:
-            diff = (a - b).abs().max().item()
-            if not torch.isfinite(a).all() or not diff <= BWD_REL_TOL * b.abs().max().item():
-                raise AssertionError(f"lstm {kind} disagrees with its plain version (B={batch}, L={layers}, {rd})")
-            errs[kind] = max(errs[kind], diff)
+    errs["bwd"] = check_bwd("lstm_seq_states_bwd",
+                            list(zip(dg, dg_p)) + [(dxs, dxs_p), (dh0, dh0_p), (dc0, dc0_p)], what)
+    errs["dw"] = check_bwd("lstm_seq_states_dw", [(a.w, b.w) for a, b in zip(dps, dps_p)]
+                           + [(a.b, b.b) for a, b in zip(dps, dps_p)], what)
     return errs
 
 
-def drive_training(dev, fam):
-    """Phase 6: train_loop through the kernels, checkpoint and resume, and
-    one step through the kernels against one through plain autograd."""
-    cfg = get_preset(PRESET, batch_size=TRAIN_B, steps=40, eval_every=10, ckpt_every=20,
-                     train_impl="fused")
-    store = traces.synthetic_store(n_users=8, n_videos=2, n_frames=1200, rate_hz=cfg.rate_hz, seed=cfg.seed)
-    train_d, test_d = data.windows_from_store(store, cfg.model.h_in, cfg.model.h_out)
-    run = dict(device=dev, eval_data=test_d, fused_tf_fn=fam.apply_fused_tf)
-    for k in KERNELS:
-        k["wrapper"].launches = 0
-    full, hist = train.train_loop(cfg, fam.init, fam.apply, train_d, **run)
+def ss_case(dev, batch, layers, ctx_dim, coins, seed, t=30, d=3, h=128):
+    """Full-width decoder weights, states, teacher inputs, coins
+    ("bernoulli" at 0.5 from the numpy seed, "1" all teacher, "0" all
+    model), context and upstream gradients."""
+    rng = np.random.default_rng(seed)
+    ps = stack(rng, dev, d + ctx_dim, layers, h)
+    if coins == "bernoulli":
+        c = torch.tensor((rng.random((t, batch, 1)) < 0.5).astype(np.float32), device=dev)
+    else:
+        c = torch.full((t, batch, 1), float(coins), device=dev)
+    a = dict(proj_w=randn(rng, dev, (h, d), 0.1), proj_b=randn(rng, dev, (d,), 0.1),
+             h0=randn(rng, dev, (layers, batch, h), 0.3), c0=randn(rng, dev, (layers, batch, h), 0.3),
+             y0=randn(rng, dev, (batch, d), 0.1), teacher=randn(rng, dev, (t, batch, d), 0.1), coins=c,
+             ctx=randn(rng, dev, (batch, ctx_dim)) if ctx_dim else None,
+             dys=randn(rng, dev, (batch, t, d)))
+    return ps, a
+
+
+def ss_fwd_args(ps, a):
+    return (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], a["ctx"])
+
+
+def check_ss_kernels(dev, batch, layers, ctx_dim, rd, coins, seed):
+    """The four ss_decode kernels against their plain versions on the same
+    inputs: the forward on ys and the residuals; the backward recurrence,
+    fed the same residuals, on dgates, dy, dteacher, dy0, dh0, dc0 and dctx;
+    the reductions, fed the plain dgates and dy, on dW, db, dproj_w and
+    dproj_b → max abs error of each."""
+    ps, a = ss_case(dev, batch, layers, ctx_dim, coins, seed)
+    what = f"B={batch}, L={layers}, C={ctx_dim}, coins {coins}"
+    ys, res = lstm_ss.ss_fwd(*ss_fwd_args(ps, a), rd)
+    ys_p, res_p = lstm_ss._forward_reference(*ss_fwd_args(ps, a), rd)
     torch.cuda.synchronize()
-    launches = {k["name"]: k["wrapper"].launches for k in KERNELS}
-    print(f"training: {len(train_d['past'])} train / {len(test_d['past'])} test windows, "
-          f"B={cfg.batch_size}, {cfg.steps} steps; logged "
-          f"{json.dumps([{k: m[k] for k in ('step', 'loss', 'eval_great_circle_deg')} for m in hist])}; "
-          f"launches {json.dumps(launches)}", flush=True)
-    losses = [m["loss"] for m in hist]
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"the training loss did not fall: {losses}")
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"the training path never launched kernel {name}")
-
-    with tempfile.TemporaryDirectory() as ck_dir:
-        train.train_loop(cfg.replace(steps=20), fam.init, fam.apply, train_d,
-                         checkpoint_dir=ck_dir, **run)
-        ck = checkpoint.Checkpointer(ck_dir, cfg)
-        opt = train.make_optimizer(cfg)
-        restored = ck.restore(train.init_state(cfg, fam.init, opt, device=dev))
-        resumed, _ = train.train_loop(cfg, fam.init, fam.apply, train_d, state=restored, **run)
-    d_resume = max((a - b).abs().max().item()
-                   for a, b in zip(tree_leaves(full.params), tree_leaves(resumed.params)))
-    print(f"resume: checkpoint at step {restored.step}, resumed to step {resumed.step}; "
-          f"max |params - uninterrupted| {d_resume:.3e} (tolerance 1e-6)", flush=True)
-    if resumed.step != cfg.steps or not d_resume <= 1e-6:
-        raise AssertionError("the resumed run differs from the uninterrupted one")
-
-    # one step, kernels against plain autograd ("xla"), from the trained
-    # state on the next batch: loss and gradients (f32 residuals tight;
-    # bf16 residuals, the main path's default, at the JAX suite's 2e-2
-    # bound), then the params after the update
-    batch = next(train.batch_iterator(train_d, cfg.batch_size, seed=1))
-    plain = cfg.replace(train_impl="xla")
-    (l_p, _), g_p = train.make_grad_fn(plain, fam.apply)(full.params, batch)
-    res_one = {}
-    for rd, rel in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        fused_fn = lambda *a, rd=rd, **kw: fam.apply_fused_tf(*a, residual_dtype=rd, **kw)  # noqa: E731
-        (l_k, _), g_k = train.make_grad_fn(cfg, fam.apply, fused_tf_fn=fused_fn)(full.params, batch)
-        g_err = max((a - b).abs().max().item() / b.abs().max().item()
-                    for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)))
-        l_err = abs(l_k.item() - l_p.item()) / abs(l_p.item())
-        if not (g_err <= rel and l_err <= rel):
-            raise AssertionError(f"train step through the kernels ({rd}) differs from plain: "
-                                 f"loss {l_err:.2e}, grads {g_err:.2e} (tolerance {rel})")
-        res_one[str(rd)[6:]] = {"loss_rel": l_err, "grad_rel": g_err}
-    opt = train.make_optimizer(cfg)
-    k_state, _ = train.make_train_step(cfg, fam.apply, opt, fused_tf_fn=fam.apply_fused_tf)(full, batch)
-    p_state, _ = train.make_train_step(plain, fam.apply, opt)(full, batch)
-    d_param = max((a - b).abs().max().item()
-                  for a, b in zip(tree_leaves(k_state.params), tree_leaves(p_state.params)))
-    print(f"one step, kernels vs plain autograd: {json.dumps(res_one)}; max |params after, "
-          f"bf16 residuals - plain| {d_param:.3e} (tolerance 0.1·lr = {0.1 * cfg.lr:.0e})", flush=True)
-    if not d_param <= 0.1 * cfg.lr:
-        raise AssertionError("params after one step through the kernels differ from plain")
-    return cfg, full, train_d, launches
+    errs = {"fwd": check_fwd("ss_decode_fwd", [(ys, ys_p)] + list(zip(
+        res.hs + res.cs + res.gs, res_p.hs + res_p.cs + res_p.gs)), rd, what)}
+    bw = lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], ctx_dim)
+    bw_p = lstm_ss._bwd_recurrence_reference(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], ctx_dim)
+    dw_in = (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["ctx"], ys, res, bw_p[0])
+    dps, dps_p = lstm_ss.ss_dw(*dw_in), lstm_ss._dw_reference(*dw_in)
+    dproj, dproj_p = lstm_ss.ss_dproj(res.hs[-1], bw_p[1]), lstm_ss._dproj_reference(res.hs[-1], bw_p[1])
+    torch.cuda.synchronize()
+    if (bw[6] is None) != (ctx_dim == 0):
+        raise AssertionError(f"ss_bwd gave dctx {bw[6] is not None} for C={ctx_dim}")
+    errs["bwd"] = check_bwd("ss_decode_bwd", list(zip(bw[0], bw_p[0])) + [
+        (x, y) for x, y in zip(bw[1:], bw_p[1:]) if y is not None], f"{what}, {rd}")
+    errs["dw"] = check_bwd("ss_decode_dw", [(x.w, y.w) for x, y in zip(dps, dps_p)]
+                           + [(x.b, y.b) for x, y in zip(dps, dps_p)], f"{what}, {rd}")
+    errs["dproj"] = check_bwd("ss_decode_dproj", list(zip(dproj, dproj_p)), f"{what}, {rd}")
+    return errs
 
 
-def time_training(fam, cfg, state, train_d, smi):
-    """Phase 7: the fast train step (the loop's step between logged steps),
-    kernels against plain autograd, in turns plain, kernel, kernel, plain."""
-    batch = next(train.batch_iterator(train_d, cfg.batch_size, seed=2))
-    opt = train.make_optimizer(cfg)
-    steps = {
-        "kernel": train.make_train_step(cfg, fam.apply, opt, gc_metric=False,
-                                        fused_tf_fn=fam.apply_fused_tf),
-        "plain": train.make_train_step(cfg.replace(train_impl="xla"), fam.apply, opt, gc_metric=False),
-    }
-    iters = {"kernel": 20, "plain": 5}
-    ms = {"kernel": 0.0, "plain": 0.0}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        st = [state]
-
-        def one():
-            st[0] = steps[which](st[0], batch)[0]
-
-        ms[which] += cuda_ms(one, iters[which]) / 2
-    out = {w: {"ms_per_step": ms[w], "steps_per_sec": 1e3 / ms[w],
-               "windows_per_sec": cfg.batch_size * 1e3 / ms[w]} for w in ms}
-    print(f"train step (B={cfg.batch_size}, fast step, CUDA events, {smi}): {json.dumps(out)}", flush=True)
-
-
-def time_lstm_kernels(dev, smi):
-    """Each training kernel alone against its plain version at the main
-    path's shapes (B = 4096, T = 30, D = 3, H = 128, one layer, bf16
-    residuals), in turns plain, kernel, kernel, plain."""
-    ps, (xs, h0, c0), up = lstm_case(dev, TRAIN_B, 1, seed=3)
-    rd = torch.bfloat16
-    res = lstm_train.lstm_fwd(ps, xs, h0, c0, rd)
-    dg = lstm_train.lstm_bwd(ps, c0, res, *up)[0]
-    calls = {
-        "lstm_seq_states_fwd": (lambda: lstm_train.lstm_fwd(ps, xs, h0, c0, rd),
-                                lambda: lstm_train._forward_reference(ps, xs, h0, c0, rd)),
-        "lstm_seq_states_bwd": (lambda: lstm_train.lstm_bwd(ps, c0, res, *up),
-                                lambda: lstm_train._bwd_recurrence_reference(ps, c0, res, *up)),
-        "lstm_seq_states_dw": (lambda: lstm_train.lstm_dw(ps, xs, h0, res, dg),
-                               lambda: lstm_train._dw_reference(ps, xs, h0, res, dg)),
-    }
-    out = {}
-    for name, (kernel, plain) in calls.items():
-        t = {"plain": 0.0, "kernel": 0.0}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            t[which] += cuda_ms(kernel if which == "kernel" else plain, 10 if which == "kernel" else 3) / 2
-        out[name] = t
-    print(f"training kernels alone (ms, B={TRAIN_B}, L=1, bf16 residuals, CUDA events, {smi}): "
-          f"{json.dumps(out)}", flush=True)
-    return out
+def check_all_kernels(dev):
+    """Phase 3."""
+    errs = {}
+    for b, l, c in ((4099, 1, 0), (4099, 2, 0), (4099, 2, 128)):
+        errs[f"B={b} L={l} C={c}"] = check_serve(dev, b, l, c, seed=l)
+    print(f"fused_serve vs plain, hidden 128, 30+30 steps: max_abs_err {json.dumps(errs)} "
+          f"(tolerance {KERNEL_TOL})", flush=True)
+    errs = {f"B={b} L={l}": check_encode(dev, b, l, seed=l) for b in (16387, 262144) for l in (1, 2)}
+    print(f"fused_encode vs plain, hidden 128, T=30: max_abs_err {json.dumps(errs)} "
+          f"(tolerance {ENC_TOL})", flush=True)
+    errs = {}
+    for batch in (4099, TRAIN_B):
+        for layers in (1, 2):
+            for rd in (torch.float32, torch.bfloat16):
+                errs[f"B={batch} L={layers} {str(rd)[6:]}"] = check_lstm_kernels(dev, batch, layers, rd, seed=layers)
+    print(f"lstm_seq_states kernels vs plain, hidden 128, T=30, max_abs_err {json.dumps(errs)} "
+          f"(forward {FWD_TOL}, plus one bf16 step with bf16 residuals; backward {BWD_REL_TOL} "
+          f"of max|plain|)", flush=True)
+    errs = {}
+    for batch in (4099, TRAIN_B):
+        for layers, ctx_dim in ((1, 0), (2, 128)):
+            for rd in (torch.float32, torch.bfloat16):
+                for coins in ("bernoulli", "1", "0"):
+                    key = f"B={batch} L={layers} C={ctx_dim} {str(rd)[6:]} coins={coins}"
+                    errs[key] = check_ss_kernels(dev, batch, layers, ctx_dim, rd, coins, seed=layers)
+    print(f"ss_decode kernels vs plain, hidden 128, T=30, D=3, max_abs_err {json.dumps(errs)} "
+          f"(forward {FWD_TOL}, plus one bf16 step on bf16 residuals; backward and reductions "
+          f"{BWD_REL_TOL} of max|plain| per output)", flush=True)
 
 
-def drive_main_path(cfg, fam, dev, params_np, params):
-    """64 concurrent single-viewer requests and one bulk request through a
-    DynamicBatcher in front of the fused serve program; every answer must
-    equal the direct batched call and the numpy oracle."""
+# --------------------------------------------------------------- phase 4: seq2seq-tf-30 serving
+
+
+def serve_batched(cfg, fam, dev, params, requests, bulk):
+    """Concurrent single requests ({"past", extras}) and one bulk request
+    through a DynamicBatcher in front of the fused serve program → (answers
+    in row order, the batcher's stats, the serve program)."""
     serve_fn = serving.make_serve_fn(params, cfg, fam, device=dev, impl="fused")
-    rng = np.random.default_rng(7)
-    singles = unit_pasts(rng, 64, cfg.model.h_in)
-    bulk = unit_pasts(rng, 1000, cfg.model.h_in)
-    bat = serving.DynamicBatcher(serve_fn, h_in=cfg.model.h_in, max_batch=1024, max_wait_ms=5.0)
+    bat = serving.DynamicBatcher(serve_fn, h_in=cfg.model.h_in, extra_specs=serving.extra_specs_for(cfg),
+                                 required=serving.required_extras_for(cfg), max_batch=1024,
+                                 max_wait_ms=5.0)
     try:
         with ThreadPoolExecutor(max_workers=64) as pool:
-            futs = [pool.submit(bat.predict, p) for p in singles]
-            chunks = bat.submit_many(bulk)
+            futs = [pool.submit(lambda r=r: bat.predict(r["past"], **{k: v for k, v in r.items()
+                                                                     if k != "past"}))
+                    for r in requests]
+            chunks = bat.submit_many(bulk["past"], **{k: v for k, v in bulk.items() if k != "past"})
             single_res = [f.result() for f in futs]
         for c in chunks:
             if not c.event.wait(60) or c.error is not None:
@@ -324,31 +414,477 @@ def drive_main_path(cfg, fam, dev, params_np, params):
         key: np.concatenate([np.stack([r[key] for r in single_res])] + [c.result[key] for c in chunks])
         for key in ("yaw", "pitch", "prefetch")
     }
+    if not all(np.isfinite(got[k]).all() for k in ("yaw", "pitch")):
+        raise AssertionError("non-finite answers")
+    return got, stats, serve_fn
+
+
+def to_xyz(got):
+    yaw, pitch = got["yaw"], got["pitch"]
+    return np.stack([np.cos(pitch) * np.cos(yaw), np.cos(pitch) * np.sin(yaw), np.sin(pitch)], -1)
+
+
+def drive_s2s_serving(cfg, fam, dev, params_np, params):
+    """64 concurrent single-viewer requests and one bulk request; every
+    answer must equal the direct batched call and the numpy oracle."""
+    rng = np.random.default_rng(7)
+    singles = unit_pasts(rng, 64, cfg.model.h_in)
+    bulk = unit_pasts(rng, 1000, cfg.model.h_in)
+    got, stats, serve_fn = serve_batched(cfg, fam, dev, params, [{"past": p} for p in singles],
+                                         {"past": bulk})
     pasts = np.concatenate([singles, bulk])
     direct = serve_fn.unpack(serve_fn({"past": pasts}).cpu().numpy())
     d_direct = max(float(np.abs(got[k] - direct[k]).max()) for k in ("yaw", "pitch"))
     same_tiles = bool((got["prefetch"] == direct["prefetch"]).all())
-    yaw, pitch = got["yaw"], got["pitch"]
-    xyz = np.stack([np.cos(pitch) * np.cos(yaw), np.cos(pitch) * np.sin(yaw), np.sin(pitch)], -1)
-    d_oracle = float(np.abs(xyz - oracle.oracle_predict(params_np, cfg.model, pasts)).max())
-    print(f"slice: {len(singles)} single + 1 bulk ({len(bulk)} rows) requests in {stats['batches']} batches; "
-          f"max |yaw,pitch - direct| {d_direct:.3e}, prefetch equal {same_tiles}; "
-          f"max |xyz - numpy oracle| {d_oracle:.3e} (tolerance {ORACLE_TOL})", flush=True)
-    if not all(np.isfinite(got[k]).all() for k in ("yaw", "pitch")):
-        raise AssertionError("non-finite answers")
+    d_oracle = float(np.abs(to_xyz(got) - oracle.oracle_predict(params_np, cfg.model, pasts)).max())
+    print(f"{S2S_SERVE}: {len(singles)} single + 1 bulk ({len(bulk)} rows) requests in "
+          f"{stats['batches']} batches; max |yaw,pitch - direct| {d_direct:.3e}, prefetch equal "
+          f"{same_tiles}; max |xyz - numpy oracle| {d_oracle:.3e} (tolerance {ORACLE_TOL})", flush=True)
     if d_direct > 1e-5 or not same_tiles:
         raise AssertionError("batched answers differ from the direct call")
     if not d_oracle <= ORACLE_TOL:
         raise AssertionError("answers disagree with the numpy oracle")
 
 
+def serve_bench(preset, batches, smi):
+    """serve-bench traj/s, fused against plain, at each (batch, iters)."""
+    out = []
+    for batch, iters in batches:
+        for impl in ("fused", "plain"):
+            r = cli.serve_bench(preset=preset, batch=batch, iters=iters, impl=impl, device="cuda:0")
+            out.append({k: r[k] for k in ("impl", "batch", "iters", "peers", "ms_per_batch",
+                                          "viewers_per_sec")})
+    print(f"serve-bench {preset} (traj/s, with tile mask, CUDA events, {smi}): {json.dumps(out)}", flush=True)
+
+
+def serve_call(cfg, params, dev, batch):
+    """One serve-bench call (normalize, kernels, denormalize, tile mask) on
+    random unit-vector pasts and peer futures, as ``cli.serve_bench`` draws
+    them."""
+    m, rng = cfg.model, np.random.default_rng(0)
+    x = {"past": torch.as_tensor(unit_pasts(rng, batch, m.h_in), device=dev),
+         "other_future": torch.as_tensor(unit_pasts(rng, batch * cfg.n_other_users, m.h_out).reshape(
+             batch, cfg.n_other_users, m.h_out, 3), device=dev)}
+    serve = infer.make_predict_fn(params, cfg, device=dev, with_tiles=True, impl="fused")
+    return lambda: serve(x)
+
+
+def serve_flop(batch, t_in, t_out, enc_ins, dec_ins, hidden, d):
+    return (stack_flop(batch, t_in, enc_ins, hidden) + stack_flop(batch, t_out, dec_ins, hidden)
+            + 2 * batch * t_out * hidden * d)
+
+
+def time_serve_kernel(name, dev, params, cfg, batch, iters, ctx_dim, smi):
+    """One serve kernel alone against its plain version at a main-path batch:
+    checked on these inputs first, then timed in turns. No single PyTorch
+    call computes an autoregressive decode with feedback: no library time."""
+    rng = np.random.default_rng(1)
+    x_n = windows.normalize_window(torch.as_tensor(unit_pasts(rng, batch, cfg.model.h_in), device=dev))[0]
+    x_n = x_n.contiguous()
+    ctx = randn(rng, dev, (batch, ctx_dim)) if ctx_dim else None
+    args = (params["encoder"], params["decoder"], params["proj"]["w"], params["proj"]["b"], x_n, cfg.model.h_out)
+    out = fused_lstm.fused_serve(*args, context=ctx)
+    ref = fused_lstm.fused_serve_reference(*args, ctx)
+    err = (out - ref).abs().max().item()
+    if out.shape != ref.shape or not torch.isfinite(out).all() or not err <= KERNEL_TOL:
+        raise AssertionError(f"{name} at B={batch} disagrees with its plain version: {err:.3e}")
+    note_err(name, err)
+    ms = in_turns({"plain": lambda: fused_lstm.fused_serve_reference(*args, ctx),
+                   "kernel": lambda: fused_lstm.fused_serve(*args, context=ctx)},
+                  {"plain": max(1, iters // 3), "kernel": iters})
+    ps = params["encoder"] + params["decoder"]
+    m = cfg.model
+    flop = serve_flop(batch, m.h_in, m.h_out, [m.d] + [m.hidden] * (m.layers - 1),
+                      [m.d + ctx_dim] + [m.hidden] * (m.layers - 1), m.hidden, m.d)
+    record(name, ms, flop, [x_n, ctx, params["proj"]["w"], params["proj"]["b"]]
+           + [t for p in ps for t in p], [out])
+    print(f"{name} alone (B={batch}, L={m.layers}, C={ctx_dim}; ms, CUDA events, {smi}): {json.dumps(ms)}; "
+          f"bound {TIMES[name]['bound_ms']:.3f} ms by {TIMES[name]['bound_by']}; max_abs_err vs plain "
+          f"{err:.3e} (tolerance {KERNEL_TOL})", flush=True)
+
+
+# --------------------------------------------------------------- training paths
+
+
+def synthetic_windows(cfg):
+    """The CLI's synthetic store (8 users, 2 videos, 1200 frames) → (train,
+    test) windows, with K peer futures for the cross_user family."""
+    store = traces.synthetic_store(n_users=8, n_videos=2, n_frames=1200, rate_hz=cfg.rate_hz, seed=cfg.seed)
+    k = cfg.n_other_users if cfg.model_family == "cross_user" else 0
+    return data.windows_from_store(store, cfg.model.h_in, cfg.model.h_out, stride=cfg.stride, n_other_users=k)
+
+
+def drive_training(cfg, path, dev):
+    """train_loop through the kernels with evaluation and checkpoints, then
+    a resume from the middle checkpoint, which must equal the uninterrupted
+    run (the scheduled-sampling coins are drawn from (seed, step), so they
+    are equal too); then one step through the kernels against one through
+    plain autograd, from the trained state on a fresh batch with the same
+    coins."""
+    fam = get_family(cfg.model_family)
+    train_d, test_d = synthetic_windows(cfg)
+    run = dict(device=dev, eval_data=test_d, **family_fns(fam))
+    # logged steps evaluate through the family's serving kernels; cross_user
+    # trains its encoder and peer encoder on lstm_seq_states
+    also = ["fused_serve"] + (["fused_encode", "lstm_seq_states_fwd", "lstm_seq_states_bwd",
+                               "lstm_seq_states_dw"] if cfg.model_family == "cross_user" else [])
+    init = train.init_state(cfg, fam.init, train.make_optimizer(cfg), device=dev)
+    with tempfile.TemporaryDirectory() as ck_dir:
+        (full, hist), launches = drive(path, lambda: train.train_loop(
+            cfg, fam.init, fam.apply, train_d, checkpoint_dir=ck_dir, **run), also)
+        print(f"{path}: {len(train_d['past'])} train / {len(test_d['past'])} test windows, "
+              f"B={cfg.batch_size}, {cfg.steps} steps; logged "
+              f"{json.dumps([{k: m[k] for k in ('step', 'loss', 'teacher_prob', 'eval_great_circle_deg')} for m in hist])}",
+              flush=True)
+        losses = [m["loss"] for m in hist]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite training loss: {losses}")
+        if cfg.scheduled_sampling:
+            # the logged losses are taken at falling teacher_prob, so they
+            # need not fall: compare the loss before and after training on
+            # one batch with the coins of the last step
+            if not hist[-1]["teacher_prob"] < 1.0:
+                raise AssertionError("teacher_prob never fell below 1")
+            last = cfg.steps - 1
+            batch = next(train.batch_iterator(train_d, cfg.batch_size, seed=3))
+            grad_fn = train.make_grad_fn(cfg, fam.apply, gc_metric=False, **family_fns(fam))
+            before, after = (grad_fn(p, batch, train.step_generator(cfg, last, dev),
+                                     train.teacher_prob_at(cfg, last))[0][0].item()
+                             for p in (init.params, full.params))
+            print(f"{path}: loss on one batch at the last step's coins (teacher_prob "
+                  f"{train.teacher_prob_at(cfg, last):.3f}): {before:.5f} at init, {after:.5f} trained",
+                  flush=True)
+            if not after < before:
+                raise AssertionError(f"the training loss did not fall: {before} -> {after}")
+        elif not losses[-1] < losses[0]:
+            raise AssertionError(f"the training loss did not fall: {losses}")
+        ck = checkpoint.Checkpointer(ck_dir, cfg)
+        mid = ck.all_steps()[0]
+        restored = ck.restore(train.init_state(cfg, fam.init, train.make_optimizer(cfg), device=dev), step=mid)
+        resumed, _ = train.train_loop(cfg, fam.init, fam.apply, train_d, state=restored, **run)
+    d_resume = max((a - b).abs().max().item() for a, b in zip(tree_leaves(full.params), tree_leaves(resumed.params)))
+    print(f"{path}: resume from the checkpoint at step {mid} to step {resumed.step}; max |params - "
+          f"uninterrupted| {d_resume:.3e} (tolerance 1e-6)", flush=True)
+    if resumed.step != cfg.steps or not d_resume <= 1e-6:
+        raise AssertionError("the resumed run differs from the uninterrupted one")
+
+    # one step, kernels against plain autograd ("xla"), same coins: loss
+    # and gradients (f32 residuals tight; bf16 residuals, the main path's
+    # default, at the JAX suite's 2e-2 bound), then the params after the update
+    batch = next(train.batch_iterator(train_d, cfg.batch_size, seed=1))
+    plain = cfg.replace(train_impl="xla")
+    mid_step = cfg.steps // 2  # coins of a step where teacher and model inputs mix
+    tp = train.teacher_prob_at(cfg, mid_step)
+
+    def gen():
+        return train.step_generator(cfg, mid_step, dev) if cfg.scheduled_sampling else None
+
+    extras = family_fns(fam)["extras_fn"]
+    (l_p, _), g_p = train.make_grad_fn(plain, fam.apply, extras_fn=extras)(full.params, batch, gen(), tp)
+    res_one = {}
+    for rd, rel in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        (l_k, _), g_k = train.make_grad_fn(cfg, fam.apply, **family_fns(fam, residual_dtype=rd))(
+            full.params, batch, gen(), tp)
+        g_err = max((a - b).abs().max().item() / b.abs().max().item()
+                    for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)))
+        l_err = abs(l_k.item() - l_p.item()) / abs(l_p.item())
+        if not (g_err <= rel and l_err <= rel):
+            raise AssertionError(f"train step through the kernels ({rd}) differs from plain: "
+                                 f"loss {l_err:.2e}, grads {g_err:.2e} (tolerance {rel})")
+        res_one[str(rd)[6:]] = {"loss_rel": l_err, "grad_rel": g_err}
+    opt = train.make_optimizer(cfg)
+    k_state, _ = train.make_train_step(cfg, fam.apply, opt, **family_fns(fam))(full, batch)
+    p_state, _ = train.make_train_step(plain, fam.apply, opt, extras_fn=extras)(full, batch)
+    d_param = max((a - b).abs().max().item()
+                  for a, b in zip(tree_leaves(k_state.params), tree_leaves(p_state.params)))
+    print(f"{path}: one step at teacher_prob {tp:.3f}, kernels vs plain autograd: {json.dumps(res_one)}; "
+          f"max |params after, bf16 residuals - plain| {d_param:.3e} (tolerance 0.1·lr = "
+          f"{0.1 * cfg.lr:.0e})", flush=True)
+    if not d_param <= 0.1 * cfg.lr:
+        raise AssertionError("params after one step through the kernels differ from plain")
+    return full, train_d, launches
+
+
+def time_training(cfg, state, train_d, path, smi, plain_iters):
+    """The fast train step (the loop's step between logged steps), kernels
+    against plain autograd, in turns plain, kernel, kernel, plain."""
+    fam = get_family(cfg.model_family)
+    batch = next(train.batch_iterator(train_d, cfg.batch_size, seed=2))
+    opt = train.make_optimizer(cfg)
+    steps = {
+        "plain": train.make_train_step(cfg.replace(train_impl="xla"), fam.apply, opt, gc_metric=False,
+                                       extras_fn=family_fns(fam)["extras_fn"]),
+        "kernel": train.make_train_step(cfg, fam.apply, opt, gc_metric=False, **family_fns(fam)),
+    }
+    st = {}
+
+    def stepper(which):
+        st[which] = state
+
+        def one():
+            st[which] = steps[which](st[which], batch)[0]
+        return one
+
+    ms = in_turns({w: stepper(w) for w in steps}, {"plain": plain_iters, "kernel": 20})
+    out = {w: {"ms_per_step": ms[w], "steps_per_sec": 1e3 / ms[w],
+               "windows_per_sec": cfg.batch_size * 1e3 / ms[w]} for w in ms}
+    print(f"{path}: train step (B={cfg.batch_size}, fast step, CUDA events, {smi}): {json.dumps(out)}", flush=True)
+    return stepper("kernel")
+
+
+def profile_device(label, fn, iters, smi):
+    """Where the device time goes over ``iters`` calls of ``fn``: the CUDA
+    kernels torch.profiler (CUPTI) records, summed by name, and the device's
+    idle share of the host's wall time (1 - the union of kernel intervals
+    over the wall time, which the profiler's own overhead inflates)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    by_name, busy, reach = {}, 0.0, float("-inf")
+    for start, end, name in spans:
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (end - start) / 1e3 / iters
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
+    print(f"{label}: profile over {iters} calls ({smi}): wall {wall_us / 1e3 / iters:.3f} ms per call, "
+          f"device busy {busy / 1e3 / iters:.3f} ms, idle share {1 - busy / wall_us:.3f}, "
+          f"{len(spans)} device events; ms per call by kernel {json.dumps(top)}", flush=True)
+
+
+def cudnn_lstm(ps, in0, dev, training):
+    """torch.nn.LSTM (cuDNN) with the same weights: weight_ih = W[:in]ᵀ,
+    weight_hh = W[in:]ᵀ, bias_ih = b, bias_hh = 0; the gate order i, f, g, o
+    is the same. ``training`` keeps what the backward needs (cuDNN's reserve
+    space: about 80 GB at 262,144 rows, so inference runs without). A
+    yardstick only: the port never calls it."""
+    hidden = ps[0].w.shape[1] // 4
+    net = torch.nn.LSTM(in0, hidden, num_layers=len(ps), batch_first=True).to(dev)
+    with torch.no_grad():
+        for l, p in enumerate(ps):
+            i = in0 if l == 0 else hidden
+            getattr(net, f"weight_ih_l{l}").copy_(p.w[:i].t())
+            getattr(net, f"weight_hh_l{l}").copy_(p.w[i:].t())
+            getattr(net, f"bias_ih_l{l}").copy_(p.b)
+            getattr(net, f"bias_hh_l{l}").zero_()
+    net.requires_grad_(False)
+    return net.train(training)
+
+
+def dw_library(zs, dgates):
+    """One cuBLAS call for a stack of dW/db products: zᵀ · dgates per layer,
+    z = [input, h_{t-1}, 1] padded to one width → bmm. A yardstick only."""
+    width = max(z.shape[1] for z in zs)
+    zt = torch.stack([torch.nn.functional.pad(z, (0, width - z.shape[1])).t() for z in zs])
+    dg = torch.stack([g.reshape(-1, g.shape[-1]) for g in dgates])
+    return lambda: torch.bmm(zt, dg)
+
+
+def z_rows(inp, h_prev):
+    """(B·T, in + H + 1): [input, h_{t-1}, 1] per row."""
+    ones = inp.new_ones(inp.shape[:-1] + (1,))
+    return torch.cat([inp, h_prev, ones], dim=-1).reshape(-1, inp.shape[-1] + h_prev.shape[-1] + 1)
+
+
+def time_lstm_kernels(dev, smi):
+    """Each lstm_seq_states kernel alone against its plain version and the
+    library's call at seq2seq-tf-30's training shapes (B = 4096, T = 30,
+    D = 3, H = 128, one layer, bf16 residuals), in turns."""
+    ps, (xs, h0, c0), up = lstm_case(dev, TRAIN_B, 1, seed=3)
+    rd = torch.bfloat16
+    res = lstm_train.lstm_fwd(ps, xs, h0, c0, rd)
+    dg, *bwd_rest = lstm_train.lstm_bwd(ps, c0, res, *up)
+    net = cudnn_lstm(ps, 3, dev, training=True)
+    x_g = xs.clone().requires_grad_(True)
+    h0_g, c0_g = h0.clone().requires_grad_(True), c0.clone().requires_grad_(True)
+    y, (hn, cn) = net(x_g, (h0_g, c0_g))
+    h_prev = torch.cat([h0[0][:, None], res.hs[0][:, :-1].float()], dim=1)
+    calls = {
+        "lstm_seq_states_fwd": dict(
+            kernel=lambda: lstm_train.lstm_fwd(ps, xs, h0, c0, rd),
+            plain=lambda: lstm_train._forward_reference(ps, xs, h0, c0, rd),
+            library=lambda: net(x_g, (h0_g, c0_g))),
+        "lstm_seq_states_bwd": dict(
+            kernel=lambda: lstm_train.lstm_bwd(ps, c0, res, *up),
+            plain=lambda: lstm_train._bwd_recurrence_reference(ps, c0, res, *up),
+            library=lambda: torch.autograd.grad((y, hn, cn), (x_g, h0_g, c0_g), up, retain_graph=True)),
+        "lstm_seq_states_dw": dict(
+            kernel=lambda: lstm_train.lstm_dw(ps, xs, h0, res, dg),
+            plain=lambda: lstm_train._dw_reference(ps, xs, h0, res, dg),
+            library=dw_library([z_rows(xs, h_prev)], dg)),
+    }
+    flop = stack_flop(TRAIN_B, 30, [3], 128)
+    w = [ps[0].w, ps[0].b]
+    io = {
+        "lstm_seq_states_fwd": ([xs, h0, c0, *w], res.hs + res.cs + res.gs),
+        "lstm_seq_states_bwd": ([c0, *up, ps[0].w, *res.cs, *res.gs], dg + bwd_rest),
+        "lstm_seq_states_dw": ([xs, h0, *res.hs, *dg], w),
+    }
+    out = {}
+    for name, fns in calls.items():
+        out[name] = in_turns(fns, {"plain": 3, "kernel": 10, "library": 10})
+        record(name, out[name], flop + (2 * TRAIN_B * 30 * 4 * 128 if name.endswith("dw") else 0), *io[name])
+    print(f"lstm_seq_states kernels alone (ms, B={TRAIN_B}, L=1, bf16 residuals, CUDA events; library: "
+          f"cuDNN nn.LSTM forward, its backward data, one cuBLAS bmm; {smi}): {json.dumps(out)}", flush=True)
+
+
+# --------------------------------------------------------------- stacked-ss-crossuser serving
+
+
+def drive_cu_serving(cfg, dev, params_np, smi):
+    """Single requests with K peers, with fewer (the rest zero, masked by
+    the default mask), with none (zero context), and one bulk request with
+    an explicit mask, through the batcher; the answers against the port's
+    plain path on the CPU and, given the same peer context, the numpy
+    oracle's decoder."""
+    params = params_from_numpy(params_np, dev)
+    m, k = cfg.model, cfg.n_other_users
+    rng = np.random.default_rng(8)
+    n_single, n_bulk = 48, 1000
+    pasts = unit_pasts(rng, n_single + n_bulk, m.h_in)
+    others = unit_pasts(rng, (n_single + n_bulk) * k, m.h_out).reshape(-1, k, m.h_out, 3)
+    requests = []
+    for i in range(n_single):
+        kind = i % 3  # K peers, two peers, none
+        if kind == 1:
+            others[i, 2:] = 0.0
+        if kind == 2:
+            others[i] = 0.0
+        r = {"past": pasts[i]}
+        if kind < 2:
+            r["other_future"] = others[i, :2] if kind == 1 else others[i]
+        requests.append(r)
+    mask = (np.abs(others).max(axis=(2, 3)) > 0).astype(np.float32)
+    mask[n_single:] = (rng.random((n_bulk, k)) < 0.6).astype(np.float32)
+    bulk = {"past": pasts[n_single:], "other_future": others[n_single:], "other_mask": mask[n_single:]}
+    (got, stats, _), launches = drive(CU_SERVE, lambda: serve_batched(cfg, cross_user, dev, params, requests, bulk))
+    xyz = to_xyz(got)
+
+    params_cpu = params_from_numpy(params_np, "cpu")
+    batch = {"past": pasts, "other_future": others, "other_mask": mask}
+    plain = infer.make_predict_fn(params_cpu, cfg, device="cpu", impl="plain")(batch).numpy()
+    d_plain = float(np.abs(xyz - plain).max())
+    with torch.inference_mode():
+        anchor = torch.as_tensor(pasts[:, -1:])
+        ctx = cross_user.encode_peers(params_cpu, m, torch.as_tensor(others) - anchor[:, None],
+                                      torch.as_tensor(mask)).numpy()
+    d_oracle = float(np.abs(xyz - oracle.oracle_predict(params_np, m, pasts, context=ctx)).max())
+    print(f"{CU_SERVE}: {n_single} single requests (K={k}, 2 and 0 peers) + 1 bulk ({n_bulk} rows, "
+          f"explicit mask) in {stats['batches']} batches; max |xyz - CPU plain path| {d_plain:.3e}; "
+          f"max |xyz - numpy oracle given the peer context| {d_oracle:.3e} (tolerance {ORACLE_TOL})", flush=True)
+    if not (d_plain <= ORACLE_TOL and d_oracle <= ORACLE_TOL):
+        raise AssertionError("crossuser answers disagree with the plain path or the oracle")
+    return params, launches
+
+
+def time_encode_kernel(dev, rows, smi, with_library):
+    """fused_encode alone at the serving path's peer rows (B·K, one layer,
+    as stacked-ss-crossuser's peer encoder), checked first, against its
+    plain version and, ``with_library``, cuDNN nn.LSTM returning h_n (TF32
+    off; at 262,144 rows cuDNN asks for more workspace than the card has).
+    The last call's numbers go to the kernels line."""
+    rng = np.random.default_rng(2)
+    ps = stack(rng, dev, 3, 1)
+    xs = torch.as_tensor(unit_pasts(rng, rows, 30), device=dev)
+    out = fused_lstm.fused_encode(ps, xs)
+    err = (out - fused_lstm.fused_encode_reference(ps, xs)).abs().max().item()
+    if not err <= ENC_TOL:
+        raise AssertionError(f"fused_encode at {rows} rows disagrees with its plain version: {err:.3e}")
+    note_err("fused_encode", err)
+    fns = {"plain": lambda: fused_lstm.fused_encode_reference(ps, xs),
+           "kernel": lambda: fused_lstm.fused_encode(ps, xs)}
+    note = ""
+    if with_library:
+        net = cudnn_lstm(ps, 3, dev, training=False)
+
+        def library():
+            with torch.no_grad():
+                return net(xs)[1][0][-1]
+
+        fns["library"] = library
+        note = f", vs cuDNN {(out - library()).abs().max().item():.3e}"
+    ms = in_turns(fns, {"plain": 2, "kernel": 5, "library": 5})
+    record("fused_encode", ms, stack_flop(rows, 30, [3], 128), [xs, ps[0].w, ps[0].b], [out])
+    print(f"fused_encode alone ({rows} rows, L=1, T=30; ms, CUDA events, library cuDNN nn.LSTM, {smi}): "
+          f"{json.dumps(ms)}; bound {TIMES['fused_encode']['bound_ms']:.3f} ms by "
+          f"{TIMES['fused_encode']['bound_by']}; max_abs_err vs plain {err:.3e}{note}", flush=True)
+
+
+# --------------------------------------------------------------- stacked-ss-crossuser training
+
+
+def time_ss_kernels(dev, smi):
+    """Each ss_decode kernel alone against its plain version at the
+    training path's decoder shapes (B = 4096, T = 30, D = 3, C = 128,
+    H = 128, two layers, bf16 residuals, Bernoulli coins), in turns; the
+    reductions also against one cuBLAS call. No single PyTorch call
+    computes the forward or backward recurrence with feedback."""
+    layers, ctx_dim, rd = 2, 128, torch.bfloat16
+    ps, a = ss_case(dev, TRAIN_B, layers, ctx_dim, "bernoulli", seed=5)
+    ys, res = lstm_ss.ss_fwd(*ss_fwd_args(ps, a), rd)
+    bw = lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], ctx_dim)
+    dgates, dy = bw[0], bw[1]
+    dw_in = (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["ctx"], ys, res, dgates)
+    x0 = lstm_ss._layer0_input(a["y0"], a["teacher"], a["coins"], a["ctx"], ys)
+    zs = []
+    for l in range(layers):
+        inp = x0 if l == 0 else res.hs[l - 1].float()
+        zs.append(z_rows(inp, torch.cat([a["h0"][l][:, None], res.hs[l][:, :-1].float()], dim=1)))
+    h_top = res.hs[-1].float().reshape(-1, 128)
+    h1 = torch.cat([h_top, h_top.new_ones((h_top.shape[0], 1))], dim=1)  # [h_top, 1]
+    bwd_args = (ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], ctx_dim)
+    calls = {
+        "ss_decode_fwd": dict(kernel=lambda: lstm_ss.ss_fwd(*ss_fwd_args(ps, a), rd),
+                              plain=lambda: lstm_ss._forward_reference(*ss_fwd_args(ps, a), rd)),
+        "ss_decode_bwd": dict(kernel=lambda: lstm_ss.ss_bwd(*bwd_args),
+                              plain=lambda: lstm_ss._bwd_recurrence_reference(*bwd_args)),
+        "ss_decode_dw": dict(kernel=lambda: lstm_ss.ss_dw(*dw_in), plain=lambda: lstm_ss._dw_reference(*dw_in),
+                             library=dw_library(zs, dgates)),
+        "ss_decode_dproj": dict(kernel=lambda: lstm_ss.ss_dproj(res.hs[-1], dy),
+                                plain=lambda: lstm_ss._dproj_reference(res.hs[-1], dy),
+                                library=lambda: h1.t() @ dy.reshape(-1, 3)),
+    }
+    ins = [3 + ctx_dim] + [128] * (layers - 1)
+    proj = 2 * TRAIN_B * 30 * 128 * 3
+    w = [t for p in ps for t in p]
+    res_all = res.hs + res.cs + res.gs
+    work = {
+        "ss_decode_fwd": (stack_flop(TRAIN_B, 30, ins, 128) + proj,
+                          [a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], a["ctx"], a["proj_w"],
+                           a["proj_b"], *w], [ys, *res_all]),
+        "ss_decode_bwd": (stack_flop(TRAIN_B, 30, ins, 128) + proj,
+                          [a["dys"], a["c0"], a["coins"], a["proj_w"], *w, *res.cs, *res.gs],
+                          [*dgates, *bw[1:6], bw[6]]),
+        "ss_decode_dw": (stack_flop(TRAIN_B, 30, ins, 128) + 2 * TRAIN_B * 30 * 4 * 128 * layers,
+                         [a["h0"], a["y0"], a["teacher"], a["coins"], a["ctx"], ys, *res.hs,
+                          *res.cs[:-1], *res.gs[:-1], *dgates], w),
+        "ss_decode_dproj": (2 * TRAIN_B * 30 * 129 * 3, [res.hs[-1], dy], [a["proj_w"], a["proj_b"]]),
+    }
+    out = {}
+    for name, fns in calls.items():
+        out[name] = in_turns(fns, {"plain": 3, "kernel": 10, "library": 10})
+        record(name, out[name], *work[name])
+    print(f"ss_decode kernels alone (ms, B={TRAIN_B}, L={layers}, C={ctx_dim}, bf16 residuals, Bernoulli "
+          f"coins, CUDA events; library: one cuBLAS bmm / matmul; {smi}): {json.dumps(out)}", flush=True)
+
+
+# --------------------------------------------------------------- main
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only on the card")
     dev = torch.device("cuda:0")
-    fused_lstm.exact_f32_matmul()  # the plain versions in exact f32, as the kernel
-    cfg = get_preset(PRESET)
-    fam = get_family(cfg.model_family)
+    fused_lstm.exact_f32_matmul()  # the plain versions and cuDNN in exact f32, as the kernels
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}", flush=True)
 
     # 1. the card
@@ -359,91 +895,53 @@ def main():
     print(smi, flush=True)
 
     # 2. build every kernel source, one nvcc each, started together
-    sources = ("fused_serve", "lstm_train")
+    sources = ("fused_serve", "lstm_train", "lstm_ss")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         builds = dict(zip(sources, pool.map(_build.build, sources)))
     for name, b in builds.items():
         regs = " ".join(ln.strip() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln)
         print(f"build: {name}.cu by nvcc in {b.seconds:.2f} s ({b.path.name}) {regs}", flush=True)
 
-    # 3. kernel vs plain at full width
-    errs = {f"layers={l}": check_kernel(cfg, dev, 4099, l, seed=l) for l in (1, 2)}
-    max_err = max(errs.values())
-    print(f"kernel vs plain, B=4099, hidden {cfg.model.hidden}, {cfg.model.h_in}+{cfg.model.h_out} steps: "
-          f"max_abs_err {json.dumps(errs)} (tolerance {KERNEL_TOL})", flush=True)
-    if not max_err <= KERNEL_TOL:
-        raise AssertionError(f"kernel disagrees with its plain version: {errs}")
-    lstm_errs = {}
-    for batch in (4099, TRAIN_B):
-        for layers in (1, 2):
-            for rd in (torch.float32, torch.bfloat16):
-                key = f"B={batch} L={layers} {str(rd)[6:]}"
-                lstm_errs[key] = check_lstm_kernels(dev, batch, layers, rd, seed=layers)
-    print(f"lstm_seq_states kernels vs plain, hidden 128, T=30, max_abs_err "
-          f"{json.dumps(lstm_errs)} (forward {FWD_TOL}, one bf16 step with bf16 residuals; "
-          f"backward {BWD_REL_TOL} of max|plain|)", flush=True)
+    # 3. every kernel against its plain version at full width
+    check_all_kernels(dev)
 
-    # 4. main path: batcher → make_serve_fn → fused kernel
+    # 4. seq2seq-tf-30 serving
+    cfg = get_preset(PRESET)
+    fam = get_family(cfg.model_family)
     params_np = oracle.init_params_np(0, cfg.model)
     params = params_from_numpy(params_np, dev)
-    serve_kernels = KERNELS[:1]
-    for k in KERNELS:
-        k["wrapper"].launches = 0
-    drive_main_path(cfg, fam, dev, params_np, params)
-    launches = {k["name"]: k["wrapper"].launches for k in serve_kernels}
-    print(f"main path launches {json.dumps(launches)}", flush=True)
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"the main path never launched kernel {name}")
+    _, s2s_serve = drive(S2S_SERVE, lambda: drive_s2s_serving(cfg, fam, dev, params_np, params))
+    serve_bench(PRESET, ((16384, 10), (262144, 3)), smi)
+    time_serve_kernel("fused_serve", dev, params, cfg, 262144, 3, 0, smi)
 
-    # 5. serve-bench
-    bench = []
-    for batch, iters in ((16384, 10), (262144, 3)):
-        for impl in ("fused", "plain"):
-            r = cli.serve_bench(preset=PRESET, batch=batch, iters=iters, impl=impl, device=dev)
-            bench.append({k: r[k] for k in ("impl", "batch", "iters", "ms_per_batch", "viewers_per_sec")})
-    print(f"serve-bench (traj/s, with tile mask, CUDA events, {smi}): {json.dumps(bench)}", flush=True)
+    # 5. seq2seq-tf-30 training
+    tcfg = get_preset(PRESET, batch_size=TRAIN_B, steps=40, eval_every=10, ckpt_every=20, train_impl="fused")
+    trained, train_d, s2s_train = drive_training(tcfg, S2S_TRAIN, dev)
+    time_training(tcfg, trained, train_d, S2S_TRAIN, smi, plain_iters=5)
+    time_lstm_kernels(dev, smi)
 
-    # kernel alone vs its plain version: checked at the timed batch, then
-    # timed in turns: plain, kernel, kernel, plain
-    alone = {}
-    for batch, iters in ((16384, 10), (262144, 3)):
-        x = torch.as_tensor(unit_pasts(np.random.default_rng(1), batch, cfg.model.h_in), device=dev)
-        x_n, _, _ = windows.normalize_window(x)
-        args = (params["encoder"], params["decoder"], params["proj"]["w"], params["proj"]["b"],
-                x_n, cfg.model.h_out)
-        out = fused_lstm.fused_serve(*args)
-        ref = fused_lstm.fused_serve_reference(*args)
-        if out.shape != ref.shape or not torch.isfinite(out).all():
-            raise AssertionError(f"kernel output at B={batch} not finite or misshapen")
-        errs[f"B={batch}"] = (out - ref).abs().max().item()
-        del out, ref
-        if not errs[f"B={batch}"] <= KERNEL_TOL:
-            raise AssertionError(f"kernel disagrees with its plain version at B={batch}: {errs}")
-        t = {"plain": 0.0, "kernel": 0.0}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = fused_lstm.fused_serve if which == "kernel" else fused_lstm.fused_serve_reference
-            t[which] += cuda_ms(lambda: fn(*args), iters) / 2
-        alone[batch] = t
-    print(f"fused_serve alone (ms, CUDA events, {smi}): {json.dumps(alone)}; "
-          f"max_abs_err vs plain {json.dumps(errs)} (tolerance {KERNEL_TOL})", flush=True)
-    # 6. the training main path; 7. its speed; the training kernels alone
-    tcfg, trained, train_d, train_launches = drive_training(dev, fam)
-    time_training(fam, tcfg, trained, train_d, smi)
-    lstm_alone = time_lstm_kernels(dev, smi)
+    # 6. stacked-ss-crossuser serving
+    ccfg = get_preset(CU_PRESET)
+    cparams, cu_serve = drive_cu_serving(ccfg, dev, cli.bench_params_np(ccfg, 0), smi)
+    serve_bench(CU_PRESET, ((16384, 5), (65536, 3)), smi)
+    profile_device(f"{CU_SERVE}: serve call at B=65536", serve_call(ccfg, cparams, dev, 65536), 2, smi)
+    time_serve_kernel("fused_serve_ctx", dev, cparams, ccfg, 65536, 3, ccfg.model.ctx_dim, smi)
+    for batch, with_library in ((65536, False), (16384, True)):
+        time_encode_kernel(dev, batch * ccfg.n_other_users, smi, with_library)
 
-    out = {"kernels": [
-        {**{k: v for k, v in KERNELS[0].items() if k != "wrapper"},
-         "launches": launches["fused_serve"], "max_abs_err": max(errs.values()),
-         "ms": alone[262144]["kernel"], "plain_ms": alone[262144]["plain"]},
-    ] + [
-        {**{k: v for k, v in kern.items() if k != "wrapper"},
-         "launches": train_launches[kern["name"]],
-         "max_abs_err": max(e[kern["name"].rsplit("_", 1)[1]] for e in lstm_errs.values()),
-         "ms": lstm_alone[kern["name"]]["kernel"], "plain_ms": lstm_alone[kern["name"]]["plain"]}
-        for kern in KERNELS[1:]
-    ]}
-    print(json.dumps(out), flush=True)
+    # 7. stacked-ss-crossuser training: teacher_prob anneals 1 → 0 over the run
+    ctcfg = get_preset(CU_PRESET, batch_size=TRAIN_B, steps=30, eval_every=10, ckpt_every=15)
+    ctrained, ctrain_d, cu_train = drive_training(ctcfg, CU_TRAIN, dev)
+    step = time_training(ctcfg, ctrained, ctrain_d, CU_TRAIN, smi, plain_iters=2)
+    profile_device(f"{CU_TRAIN}: fast step", step, 5, smi)
+    time_ss_kernels(dev, smi)
+
+    launches = {S2S_SERVE: s2s_serve, S2S_TRAIN: s2s_train, CU_SERVE: cu_serve, CU_TRAIN: cu_train}
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
+         "launches": launches[path][name], "max_abs_err": ERRS[name], **TIMES[name]}
+        for name, src, rep, _, path in KERNELS
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -24,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["main", "serve_bench", "card"]
+__all__ = ["main", "serve_bench", "bench_params_np", "card"]
 
 # train flags of the JAX CLI that the port does not have yet, and the
 # ROADMAP.md item that brings each
@@ -32,7 +32,8 @@ _NOT_PORTED = {
     "data_parallel": "--data-parallel: ROADMAP.md, slice 'parallelism'",
     "seq_parallel": "--seq-parallel: ROADMAP.md, slice 'parallelism'",
     "pipeline_parallel": "--pipeline-parallel: ROADMAP.md, slice 'parallelism'",
-    "peer_align": "--peer-align: ROADMAP.md, slice 'cross_user'",
+    "peer_align": "--peer-align: ROADMAP.md Queue 2, the cross_user lockstep-peer tier "
+                  "(preset stacked-ss-crossuser-10s)",
     "bf16": "--bf16: ROADMAP.md Queue 2, the lstm_seq_states bf16-compute tier",
     "tb_dir": "--tb-dir: ROADMAP.md, slice 'the TCP daemon and CLI'",
 }
@@ -53,32 +54,62 @@ def card(device: torch.device) -> dict:
     return info
 
 
+def _with_peers(cfg) -> bool:
+    return cfg.model_family in ("cross_user", "transformer") and cfg.n_other_users > 0
+
+
+def bench_params_np(cfg, seed: int) -> dict:
+    """Seeded numpy weights of the preset's family: ``oracle.init_params_np``
+    (as in ``bench.py``) and, for cross_user, a Glorot-uniform peer encoder
+    (forget-gate bias 1) from ``default_rng(seed + 1)``."""
+    from . import oracle
+    from .models.cell import LSTMParams
+
+    tree = oracle.init_params_np(seed, cfg.model)
+    if cfg.model_family == "cross_user":
+        m = cfg.model
+        lim = np.sqrt(6.0 / (m.d + m.ctx_dim + 4 * m.ctx_dim))
+        w = np.random.default_rng(seed + 1).uniform(
+            -lim, lim, size=(m.d + m.ctx_dim, 4 * m.ctx_dim)).astype(np.float32)
+        b = np.zeros(4 * m.ctx_dim, np.float32)
+        b[m.ctx_dim:2 * m.ctx_dim] = 1.0
+        tree["peer_encoder"] = LSTMParams(w=w, b=b)
+    return tree
+
+
 def serve_bench(
     *, preset: str = "seq2seq-tf-30", batch: int, iters: int, impl: str,
-    device, seed: int = 0,
+    device, seed: int = 0, peers: int = -1,
 ) -> dict:
     """Time ``iters`` calls of the serve path (normalize → decode →
     denormalize → tile mask) on ``batch`` random viewers, after one warm-up
-    call. Weights are ``oracle.init_params_np(seed)``, as in ``bench.py``.
-    Turns TF32 off for the process (``exact_f32_matmul``)."""
-    from . import infer, oracle
+    call. Weights are :func:`bench_params_np`. A family that takes peers
+    (cross_user) gets ``n_other_users`` random unit-vector peer futures per
+    viewer (``peers`` >= 0 overrides the preset's K), as the JAX
+    ``serve-bench`` draws them. Turns TF32 off for the process
+    (``exact_f32_matmul``)."""
+    from . import infer
     from .config import get_preset
     from .ops.fused_lstm import exact_f32_matmul
     from .params import params_from_numpy
 
     device = _device(str(device))
     exact_f32_matmul()  # the plain impl in the f32 the kernel computes
-    cfg = get_preset(preset)
-    params = params_from_numpy(oracle.init_params_np(seed, cfg.model), device)
+    cfg = get_preset(preset, **({"n_other_users": peers} if peers >= 0 else {}))
+    params = params_from_numpy(bench_params_np(cfg, seed), device)
     rng = np.random.default_rng(seed)
     past = rng.normal(size=(batch, cfg.model.h_in, 3)).astype(np.float32)
     past /= np.linalg.norm(past, axis=-1, keepdims=True)
-    x = torch.as_tensor(past, device=device)
+    x = {"past": torch.as_tensor(past, device=device)}
+    if _with_peers(cfg):
+        others = rng.normal(size=(batch, cfg.n_other_users, cfg.model.h_out, 3)).astype(np.float32)
+        others /= np.linalg.norm(others, axis=-1, keepdims=True)
+        x["other_future"] = torch.as_tensor(others, device=device)
     serve = infer.make_predict_fn(
         params, cfg, device=device, with_tiles=True, impl=impl
     )
     res = {"preset": preset, "impl": impl, "batch": batch, "iters": iters,
-           "horizon": cfg.model.h_out}
+           "horizon": cfg.model.h_out, "peers": cfg.n_other_users if _with_peers(cfg) else 0}
     if device.type == "cuda":
         serve(x)
         torch.cuda.synchronize(device)
@@ -116,6 +147,7 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     sb.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
     sb.add_argument("--seed", type=int, default=0)
+    sb.add_argument("--peer-align", action="store_true", dest="peer_align")
 
     tr = sub.add_parser("train", help="train a preset")
     tr.add_argument("--preset", required=True)
@@ -145,7 +177,25 @@ def _build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--data")
     ev.add_argument("--json", action="store_true")
     ev.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
+    ev.add_argument("--peer-align", action="store_true", dest="peer_align")
+    for cp in (sb, tr, ev):
+        cp.add_argument(
+            "--peers", type=int, default=-1,
+            help="cross-viewer context size K for this run (the params are "
+            "K-agnostic); -1 = the preset's K",
+        )
     return p
+
+
+def _overrides(args, **over) -> dict:
+    """The preset overrides every subcommand shares: ``--peers`` (>= 0)
+    sets ``n_other_users``, a data and serving-schema knob that is not part
+    of the model hash. ``--peer-align`` raises: its tier is not ported."""
+    if getattr(args, "peer_align", False):
+        raise SystemExit(f"not ported yet: {_NOT_PORTED['peer_align']}")
+    if getattr(args, "peers", -1) >= 0:
+        over["n_other_users"] = args.peers
+    return over
 
 
 def _device(name: str) -> torch.device:
@@ -223,9 +273,10 @@ def cmd_presets(_args):
 
 
 def cmd_serve_bench(args):
+    _overrides(args)
     print(json.dumps(serve_bench(
         preset=args.preset, batch=args.batch, iters=args.iters,
-        impl=args.impl, device=args.device, seed=args.seed,
+        impl=args.impl, device=args.device, seed=args.seed, peers=args.peers,
     )))
 
 
@@ -245,7 +296,7 @@ def cmd_train(args):
         )
     over = {k: getattr(args, k) for k in ("steps", "batch_size", "lr", "accum", "gc_weight")
             if getattr(args, k) is not None}
-    cfg = get_preset(args.preset, **over)
+    cfg = get_preset(args.preset, **_overrides(args, **over))
     fam = get_family(cfg.model_family)
     device = _device(args.device)
     exact_f32_matmul()
@@ -276,7 +327,9 @@ def cmd_train(args):
         cfg, fam.init, fam.apply, train_d, device=device,
         eval_data=test_d or None, log_file=args.log_file,
         checkpoint_dir=args.ckpt_dir, state=state,
+        extras_fn=getattr(fam, "batch_extras", None),
         fused_tf_fn=getattr(fam, "apply_fused_tf", None),
+        fused_ss_fn=getattr(fam, "apply_fused_ss", None),
     )
     if history:
         print(json.dumps(history[-1]))
@@ -289,7 +342,7 @@ def cmd_eval(args):
     from .models import get_family
     from .ops.fused_lstm import exact_f32_matmul
 
-    cfg = get_preset(args.preset)
+    cfg = get_preset(args.preset, **_overrides(args))
     fam = get_family(cfg.model_family)
     device = _device(args.device)
     exact_f32_matmul()

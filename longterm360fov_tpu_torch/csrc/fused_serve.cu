@@ -1,28 +1,37 @@
-// Whole-request LSTM serve kernel for Hopper (sm_90a), exact f32.
+// Whole-request LSTM serve kernel and whole-sequence encode kernel for
+// Hopper (sm_90a), exact f32.
 //
-// Replaces the TPU Pallas kernel
+// fused_serve_kernel replaces the TPU Pallas kernel
 //   longterm360fov_tpu/ops/fused_lstm.py::fused_serve / _serve_kernel
-// in its no-context f32 tier. One launch runs the whole request:
+// in its no-context and static-context f32 tiers. One launch runs the whole
+// request:
 //   * the L-layer encoder over T_in steps, from zero state;
 //   * T_out autoregressive decoder steps. Decoder layer l starts from the
-//     encoder's final (h, c) of layer l; the layer-0 input is the previous
-//     output y, starting from y0 = past_n[:, T_in - 1];
+//     encoder's final (h, c) of layer l; the layer-0 input is [y, ctx]: the
+//     previous output y, starting from y0 = past_n[:, T_in - 1], and, in the
+//     static-context tier, the row's context ctx (B, C), written once;
 //   * y = h_top @ proj_w + proj_b after every decoder step, fed back.
-// Input past_n (B, T_in, D) and output (B, T_out, D) are read and written
-// in that layout; a ragged last block is masked.
+// fused_encode_kernel replaces
+//   longterm360fov_tpu/ops/fused_lstm.py::fused_encode / _encode_kernel:
+// the same encoder phase over xs (B, T, D), returning only the final
+// top-layer h (B, H). Nothing is saved per step (the peer encoder of the
+// cross_user family at serving time: B·K rows).
+// Inputs are read and outputs written in the caller's batch-major layout; a
+// ragged last block is masked.
 //
-// What bounds it on the card:
+// What bounds them on the card:
 //   * Arithmetic. Every layer-step is a (R x in+H) @ (in+H x 4H) product:
-//     2.1 TFLOP per call at B = 262144, D = 3, H = 128, 30 + 30 steps. In
-//     exact f32 (no TF32, no fast math) that runs on the FMA units, whose
-//     peak is 67 TFLOP/s.
+//     2.1 TFLOP per serve call at B = 262144, D = 3, H = 128, 30 + 30 steps,
+//     L = 1. In exact f32 (no TF32, no fast math) that runs on the FMA units,
+//     whose peak is 67 TFLOP/s. The static context adds C k-rows to the
+//     decoder's layer 0 (C = 128: 1.5x the decoder's layer-0 work).
 //   * Weight traffic. One layer's W is (3 + 128) x 512 x 4 = 268 KB, more
 //     than the 227 KB of shared memory a block can have, so W is read from
 //     global memory every step. All blocks read the same matrices, so W stays
 //     in L2. At R = 64 rows per block every W byte brought from L2 feeds
 //     32 FLOP, about 66 GB of L2 reads per call at B = 262144: far below
 //     what L2 delivers in the time the FMAs take.
-//   * The recurrence. The 60 steps are serial inside a block.
+//   * The recurrence. The steps are serial inside a block.
 // What the design does about it:
 //   * Each thread owns TR = 8 rows x TJ = 4 hidden units and computes all four
 //     gates of them: 128 accumulators in registers. Per k it loads one float4
@@ -34,8 +43,10 @@
 //     sits in shared memory that only its owner thread touches.
 //   * h of every layer sits in shared memory, k-major (H, R), so the product
 //     reads it as [x, h] without a concat; it is overwritten in place after a
-//     barrier. Between steps nothing goes to device memory except W reads,
-//     x_t in and y_t out. Rows are independent, so blocks share nothing.
+//     barrier. The decoder's layer-0 input [y, ctx] is one k-major (D + C, R)
+//     buffer: ctx is loaded once, y rewritten every step. Between steps
+//     nothing goes to device memory except W reads, x_t in and y_t out. Rows
+//     are independent, so blocks share nothing.
 
 #include <cuda_runtime.h>
 
@@ -146,10 +157,33 @@ __device__ __forceinline__ void load_step(float* x,
   }
 }
 
+// The L-layer encoder over T steps of xs (B, T, D) from zero state, for the
+// block's R rows: h_s and c_s (L x H * R floats each) end holding the final
+// states, x_s (D, R) the last step's input.
+__device__ __forceinline__ void encode(const float* __restrict__ xs,
+                                       const float* const* w,
+                                       const float* const* b, float* h_s,
+                                       float* c_s, float* x_s, long long row0,
+                                       int B, int T, int D, int H, int L,
+                                       int R, int r0, int j0, int tid,
+                                       int nthr) {
+  const int HR = H * R;
+  for (int i = tid; i < 2 * L * HR; i += nthr) h_s[i] = 0.0f;  // h_s, c_s
+  for (int t = 0; t < T; ++t) {
+    load_step(x_s, xs, row0, B, T, t, D, R, tid, nthr);
+    __syncthreads();
+    for (int l = 0; l < L; ++l)
+      lstm_layer_step(l == 0 ? x_s : h_s + (l - 1) * HR, l == 0 ? D : H,
+                      h_s + l * HR, c_s + l * HR, w[l], b[l], H, R, r0, j0,
+                      tid, nthr);
+  }
+}
+
 __global__ void __launch_bounds__(256)
-    fused_serve_kernel(const float* __restrict__ past, float* __restrict__ out,
+    fused_serve_kernel(const float* __restrict__ past,
+                       const float* __restrict__ ctx, float* __restrict__ out,
                        const Weights wts, int B, int T_in, int T_out, int D,
-                       int H, int L, int R) {
+                       int C, int H, int L, int R) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -158,28 +192,25 @@ __global__ void __launch_bounds__(256)
   const int HR = H * R;
   float* h_s = smem;           // L x (H, R)
   float* c_s = h_s + L * HR;   // L x (TR * TJ, nthr): the same H * R floats
-  float* x_s = c_s + L * HR;   // (D, R) layer-0 input: x_t, then y_{t-1}
+  float* x_s = c_s + L * HR;   // (D + C, R) layer-0 input: x_t, then [y, ctx]
   const long long row0 = (long long)blockIdx.x * R;
 
-  for (int i = tid; i < 2 * L * HR; i += nthr) smem[i] = 0.0f;
-
-  for (int t = 0; t < T_in; ++t) {
-    load_step(x_s, past, row0, B, T_in, t, D, R, tid, nthr);
-    __syncthreads();
-    for (int l = 0; l < L; ++l)
-      lstm_layer_step(l == 0 ? x_s : h_s + (l - 1) * HR, l == 0 ? D : H,
-                      h_s + l * HR, c_s + l * HR, wts.w_enc[l], wts.b_enc[l],
-                      H, R, r0, j0, tid, nthr);
-  }
+  encode(past, wts.w_enc, wts.b_enc, h_s, c_s, x_s, row0, B, T_in, D, H, L, R,
+         r0, j0, tid, nthr);
 
   // the decoder starts from the encoder's final (h, c) of every layer, which
-  // stay where they are, and from the last observed position
-  load_step(x_s, past, row0, B, T_in, T_in - 1, D, R, tid, nthr);
+  // stay where they are, from the last observed position (x_s holds it) and,
+  // in the static-context tier, from the row's context, written once
+  for (int i = tid; i < R * C; i += nthr) {
+    const int r = i / C, k = i % C;
+    const long long row = row0 + r;
+    x_s[(D + k) * R + r] = row < B ? ctx[row * C + k] : 0.0f;
+  }
   __syncthreads();
   const float* h_top = h_s + (L - 1) * HR;
   for (int t = 0; t < T_out; ++t) {
     for (int l = 0; l < L; ++l)
-      lstm_layer_step(l == 0 ? x_s : h_s + (l - 1) * HR, l == 0 ? D : H,
+      lstm_layer_step(l == 0 ? x_s : h_s + (l - 1) * HR, l == 0 ? D + C : H,
                       h_s + l * HR, c_s + l * HR, wts.w_dec[l], wts.b_dec[l],
                       H, R, r0, j0, tid, nthr);
     // y = h_top @ proj_w + proj_b becomes the next step's layer-0 input;
@@ -198,44 +229,107 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+__global__ void __launch_bounds__(256)
+    fused_encode_kernel(const float* __restrict__ xs, float* __restrict__ out,
+                        const Weights wts, int B, int T, int D, int H, int L,
+                        int R) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int j0 = (tid % (H / TJ)) * TJ;
+  const int r0 = (tid / (H / TJ)) * TR;
+  const int HR = H * R;
+  float* h_s = smem;          // L x (H, R)
+  float* c_s = h_s + L * HR;  // L x (TR * TJ, nthr)
+  float* x_s = c_s + L * HR;  // (D, R)
+  const long long row0 = (long long)blockIdx.x * R;
+
+  encode(xs, wts.w_enc, wts.b_enc, h_s, c_s, x_s, row0, B, T, D, H, L, R, r0,
+         j0, tid, nthr);
+  // the final top-layer h, row-major: neighbouring threads write neighbouring
+  // units of a row
+  const float* h_top = h_s + (L - 1) * HR;
+  for (int i = tid; i < R * H; i += nthr) {
+    const int r = i / H, k = i % H;
+    const long long row = row0 + r;
+    if (row < B) out[row * H + k] = h_top[k * R + r];
+  }
+}
+
+static bool bad_shape(int batch, int t_len, int d, int hidden, int layers,
+                      int rows) {
+  return layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
+         rows < TR || rows % TR || batch < 1 || t_len < 1 || d < 1 ||
+         (rows / TR) * (hidden / TJ) > 256;
+}
+
 extern "C" {
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 = ok).
-// The pointer arrays hold `layers` device pointers each; `rows` is the
-// batch rows per block (a multiple of TR), so the block has
-// (rows / TR) * (hidden / TJ) threads and
-// (2 * layers * hidden + d) * rows floats of dynamic shared memory.
-int fused_serve_f32(const void* past, void* out, const void* const* w_enc,
-                    const void* const* b_enc, const void* const* w_dec,
-                    const void* const* b_dec, const void* proj_w,
-                    const void* proj_b, int batch, int t_in, int t_out, int d,
-                    int hidden, int layers, int rows, void* stream) {
-  if (layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
-      rows < TR || rows % TR || batch < 1 || t_in < 1 || t_out < 1 || d < 1)
+// Each function launches its kernel on `stream` and returns
+// cudaGetLastError() (0 = ok). The pointer arrays hold `layers` device
+// pointers each; `rows` is the batch rows per block (a multiple of TR), so
+// the block has (rows / TR) * (hidden / TJ) threads.
+
+// (2 * layers * hidden + d + ctx_dim) * rows floats of dynamic shared
+// memory. ctx (batch, ctx_dim) is null when ctx_dim == 0; the decoder's
+// layer-0 W is then (d + hidden, 4 * hidden), else (d + ctx_dim + hidden,
+// 4 * hidden).
+int fused_serve_f32(const void* past, const void* ctx, void* out,
+                    const void* const* w_enc, const void* const* b_enc,
+                    const void* const* w_dec, const void* const* b_dec,
+                    const void* proj_w, const void* proj_b, int batch,
+                    int t_in, int t_out, int d, int ctx_dim, int hidden,
+                    int layers, int rows, void* stream) {
+  if (bad_shape(batch, t_in, d, hidden, layers, rows) || t_out < 1 ||
+      ctx_dim < 0 || (ctx_dim > 0) != (ctx != nullptr))
     return (int)cudaErrorInvalidValue;
-  const int threads = (rows / TR) * (hidden / TJ);
-  if (threads > 256) return (int)cudaErrorInvalidValue;
   Weights w;
-  for (int l = 0; l < layers; ++l) {
-    w.w_enc[l] = static_cast<const float*>(w_enc[l]);
-    w.b_enc[l] = static_cast<const float*>(b_enc[l]);
-    w.w_dec[l] = static_cast<const float*>(w_dec[l]);
-    w.b_dec[l] = static_cast<const float*>(b_dec[l]);
+  for (int l = 0; l < MAX_LAYERS; ++l) {
+    const bool on = l < layers;
+    w.w_enc[l] = on ? static_cast<const float*>(w_enc[l]) : nullptr;
+    w.b_enc[l] = on ? static_cast<const float*>(b_enc[l]) : nullptr;
+    w.w_dec[l] = on ? static_cast<const float*>(w_dec[l]) : nullptr;
+    w.b_dec[l] = on ? static_cast<const float*>(b_dec[l]) : nullptr;
   }
-  for (int l = layers; l < MAX_LAYERS; ++l)
-    w.w_enc[l] = w.b_enc[l] = w.w_dec[l] = w.b_dec[l] = nullptr;
   w.proj_w = static_cast<const float*>(proj_w);
   w.proj_b = static_cast<const float*>(proj_b);
   const size_t smem =
-      ((size_t)2 * layers * hidden * rows + (size_t)d * rows) * sizeof(float);
+      ((size_t)2 * layers * hidden + d + ctx_dim) * rows * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       fused_serve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
+  const int threads = (rows / TR) * (hidden / TJ);
   const int grid = (batch + rows - 1) / rows;
   fused_serve_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(past), static_cast<float*>(out), w, batch,
-      t_in, t_out, d, hidden, layers, rows);
+      static_cast<const float*>(past), static_cast<const float*>(ctx),
+      static_cast<float*>(out), w, batch, t_in, t_out, d, ctx_dim, hidden,
+      layers, rows);
+  return (int)cudaGetLastError();
+}
+
+// (2 * layers * hidden + d) * rows floats of dynamic shared memory; out is
+// (batch, hidden).
+int fused_encode_f32(const void* xs, void* out, const void* const* w,
+                     const void* const* b, int batch, int t_len, int d,
+                     int hidden, int layers, int rows, void* stream) {
+  if (bad_shape(batch, t_len, d, hidden, layers, rows))
+    return (int)cudaErrorInvalidValue;
+  Weights wts = {};
+  for (int l = 0; l < layers; ++l) {
+    wts.w_enc[l] = static_cast<const float*>(w[l]);
+    wts.b_enc[l] = static_cast<const float*>(b[l]);
+  }
+  const size_t smem = ((size_t)2 * layers * hidden + d) * rows * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = (rows / TR) * (hidden / TJ);
+  const int grid = (batch + rows - 1) / rows;
+  fused_encode_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xs), static_cast<float*>(out), wts, batch,
+      t_len, d, hidden, layers, rows);
   return (int)cudaGetLastError();
 }
 

@@ -65,122 +65,9 @@
 //     16-byte global loads in flight while the current one computes. z is
 //     assembled while it is loaded, h part first so that it is whole 16-byte
 //     runs, and is never written to device memory.
+// The device code these kernels share with lstm_ss.cu is in lstm_common.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#define MAX_LAYERS 8
-#define TR 4        // batch rows per thread
-#define TJ 4        // hidden units per thread: one float4 of each gate
-#define DW_T 128    // dW tile: rows (z features) and columns (gates)
-#define DW_K 16     // (b, t) rows per shared-memory stage of the reduction
-
-// ---------------------------------------------------------------------------
-// residual type: f32 or bf16 (round to nearest even, as torch and XLA cast)
-// ---------------------------------------------------------------------------
-
-template <typename RT>
-struct Res;
-
-template <>
-struct Res<float> {
-  static __device__ __forceinline__ float ld(const float* p) { return *p; }
-  static __device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x;
-    v[1] = x.y;
-    v[2] = x.z;
-    v[3] = x.w;
-  }
-  static __device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Res<__nv_bfloat16> {
-  static __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void ld4(const __nv_bfloat16* p,
-                                             float (&v)[4]) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    v[0] = lo.x;
-    v[1] = lo.y;
-    v[2] = hi.x;
-    v[3] = hi.y;
-  }
-  static __device__ __forceinline__ void st4(__nv_bfloat16* p,
-                                             const float (&v)[4]) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 u;
-    u.x = *reinterpret_cast<const unsigned*>(&lo);
-    u.y = *reinterpret_cast<const unsigned*>(&hi);
-    *reinterpret_cast<uint2*>(p) = u;
-  }
-};
-
-using F = Res<float>;
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// acc[g][r][j] += sum_{k<K} z[k][r0 + r] * W[k][g * goff + j0 + j].
-// z is k-major (K, R) in shared memory, so the thread's 4 rows are one
-// float4 (a broadcast: a warp shares its rows); W rows are ldw floats long.
-template <int NG>
-__device__ __forceinline__ void accumulate(float (&acc)[NG][TR][TJ],
-                                           const float* z, int K,
-                                           const float* __restrict__ W,
-                                           int ldw, int goff, int R, int r0,
-                                           int j0) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[TR];
-    F::ld4(z + k * R + r0, a);
-    const float* wk = W + (size_t)k * ldw + j0;
-    float w[NG][TJ];
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(wk + g * goff));
-      w[g][0] = v.x;
-      w[g][1] = v.y;
-      w[g][2] = v.z;
-      w[g][3] = v.w;
-    }
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int r = 0; r < TR; ++r)
-#pragma unroll
-        for (int j = 0; j < TJ; ++j)
-          acc[g][r][j] = fmaf(a[r], w[g][j], acc[g][r][j]);
-  }
-}
-
-// z[k][r0 .. r0 + 3] = v[0 .. 3][j] for the thread's 4 rows: one 16-byte
-// store per k (a k-major column of 4 rows)
-__device__ __forceinline__ void st_rows(float* z, int k, int R, int r0,
-                                        const float (&v)[TR][TJ], int j) {
-  *reinterpret_cast<float4*>(z + k * R + r0) =
-      make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
-}
-
-template <int NG>
-__device__ __forceinline__ void zero(float (&acc)[NG][TR][TJ]) {
-#pragma unroll
-  for (int g = 0; g < NG; ++g)
-#pragma unroll
-    for (int r = 0; r < TR; ++r)
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) acc[g][r][j] = 0.0f;
-}
+#include "lstm_common.cuh"
 
 // ---------------------------------------------------------------------------
 // forward
@@ -193,53 +80,6 @@ struct FwdArgs {
   void* cs[MAX_LAYERS];        // (B, T, H)
   void* gs[MAX_LAYERS];        // (B, T, 4H)
 };
-
-// One layer-step for the block's R rows: gates = [in, h] @ W + b, the cell
-// update, and the residual stores. in: (k_in, R) layer input; h: (H, R) this
-// layer's hidden state, read and then overwritten; c: this layer's cell
-// state, owner-private [TR * TJ][nthr].
-template <typename RT>
-__device__ __forceinline__ void fwd_layer_step(
-    const float* in, int k_in, float* h, float* c, const float* __restrict__ W,
-    const float* __restrict__ bias, RT* hs, RT* cs, RT* gs, long long row0,
-    int B, int T, int t, int H, int R, int r0, int j0, int tid, int nthr) {
-  float acc[4][TR][TJ];
-  zero(acc);
-  accumulate<4>(acc, in, k_in, W, 4 * H, H, R, r0, j0);
-  accumulate<4>(acc, h, H, W + (size_t)k_in * 4 * H, 4 * H, H, R, r0, j0);
-  __syncthreads();  // every thread is done reading h (and in) of this step
-
-  float b[4][TJ];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) F::ld4(bias + g * H + j0, b[g]);
-  float hv[TR][TJ];
-#pragma unroll
-  for (int r = 0; r < TR; ++r) {
-    float gv[4][TJ], cv[TJ];
-#pragma unroll
-    for (int j = 0; j < TJ; ++j) {
-      gv[0][j] = sigmoid_f32(acc[0][r][j] + b[0][j]);
-      gv[1][j] = sigmoid_f32(acc[1][r][j] + b[1][j]);
-      gv[2][j] = tanhf(acc[2][r][j] + b[2][j]);
-      gv[3][j] = sigmoid_f32(acc[3][r][j] + b[3][j]);
-      const int idx = (r * TJ + j) * nthr + tid;
-      cv[j] = gv[1][j] * c[idx] + gv[0][j] * gv[2][j];
-      hv[r][j] = gv[3][j] * tanhf(cv[j]);
-      c[idx] = cv[j];
-    }
-    const long long row = row0 + r0 + r;
-    if (row < B) {
-      const size_t q = (size_t)row * T + t;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) Res<RT>::st4(gs + q * 4 * H + g * H + j0, gv[g]);
-      Res<RT>::st4(cs + q * H + j0, cv);
-      Res<RT>::st4(hs + q * H + j0, hv[r]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < TJ; ++j) st_rows(h, j0 + j, R, r0, hv, j);
-  __syncthreads();  // the new h is visible to the next layer and step
-}
 
 template <typename RT>
 __global__ void __launch_bounds__(256)
@@ -257,21 +97,7 @@ __global__ void __launch_bounds__(256)
   float* x_s = c_s + L * HR;  // (D, R) layer-0 input x_t
   const long long row0 = (long long)blockIdx.x * R;
 
-  for (int l = 0; l < L; ++l)
-#pragma unroll
-    for (int r = 0; r < TR; ++r) {
-      const long long row = row0 + r0 + r;
-      float vh[TJ] = {0.0f, 0.0f, 0.0f, 0.0f}, vc[TJ] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (row < B) {
-        F::ld4(h0 + ((size_t)l * B + row) * H + j0, vh);
-        F::ld4(c0 + ((size_t)l * B + row) * H + j0, vc);
-      }
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        h_s[l * HR + (j0 + j) * R + r0 + r] = vh[j];
-        c_s[l * HR + (r * TJ + j) * nthr + tid] = vc[j];
-      }
-    }
+  load_states(h_s, c_s, h0, c0, row0, B, H, L, R, r0, j0, tid, nthr);
 
   for (int t = 0; t < T; ++t) {
     for (int i = tid; i < R * D; i += nthr) {
@@ -349,51 +175,10 @@ __global__ void __launch_bounds__(256)
       for (int j = 0; j < TJ; ++j) above[r][j] = v[j];
     }
     for (int l = L - 1; l >= 0; --l) {
-      const RT* gs = static_cast<const RT*>(a.gs[l]);
-      const RT* cs = static_cast<const RT*>(a.cs[l]);
-      float dgv[4][TR][TJ];
-#pragma unroll
-      for (int r = 0; r < TR; ++r) {
-        const long long row = row0 + r0 + r;
-        float gv[4][TJ], ct[TJ], cp[TJ];
-#pragma unroll
-        for (int j = 0; j < TJ; ++j) {
-          gv[0][j] = gv[1][j] = gv[2][j] = gv[3][j] = 0.0f;
-          ct[j] = cp[j] = 0.0f;
-        }
-        if (row < B) {
-          const size_t q = (size_t)row * T + t;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) Res<RT>::ld4(gs + q * G + g * H + j0, gv[g]);
-          Res<RT>::ld4(cs + q * H + j0, ct);
-          if (t > 0)
-            Res<RT>::ld4(cs + (q - 1) * H + j0, cp);
-          else
-            F::ld4(c0 + ((size_t)l * B + row) * H + j0, cp);
-        }
-#pragma unroll
-        for (int j = 0; j < TJ; ++j) {
-          const int idx = l * HR + (r * TJ + j) * nthr + tid;
-          const float i_g = gv[0][j], f_g = gv[1][j], g_g = gv[2][j], o_g = gv[3][j];
-          const float dh_total = above[r][j] + dh_s[idx];
-          const float tanh_c = tanhf(ct[j]);
-          const float dc_total = dh_total * o_g * (1.0f - tanh_c * tanh_c) + dc_s[idx];
-          dgv[0][r][j] = dc_total * g_g * i_g * (1.0f - i_g);
-          dgv[1][r][j] = dc_total * cp[j] * f_g * (1.0f - f_g);
-          dgv[2][r][j] = dc_total * i_g * (1.0f - g_g * g_g);
-          dgv[3][r][j] = dh_total * tanh_c * o_g * (1.0f - o_g);
-          dc_s[idx] = dc_total * f_g;
-        }
-        if (row < B) {
-          const size_t q = (size_t)row * T + t;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) F::st4(a.dg[l] + q * G + g * H + j0, dgv[g][r]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int j = 0; j < TJ; ++j) st_rows(dg_s, g * H + j0 + j, R, r0, dgv[g], j);
+      bwd_cell_step<RT>(static_cast<const RT*>(a.gs[l]),
+                        static_cast<const RT*>(a.cs[l]), c0, a.dg[l], above,
+                        dh_s + l * HR, dc_s + l * HR, dg_s, row0, B, T, t, l,
+                        H, R, r0, j0, tid, nthr);
       __syncthreads();  // dgates of this layer-step complete in dg_s
 
       if (l > 0) {
@@ -416,22 +201,10 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
           for (int j = 0; j < TJ; ++j)
             dh_s[(r * TJ + j) * nthr + tid] = acc[0][r][j];
-        // dxs[row, t, d] = sum_k dgates[k][row] * W[d][k] (W's first D rows):
-        // a thread per (row, d), four partial sums
-        for (int i = tid; i < R * D; i += nthr) {
-          const int r = i % R, d = i / R;
-          const long long row = row0 + r;
-          if (row >= B) continue;
-          const float* wd = a.w[0] + (size_t)d * G;
-          float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-          for (int k = 0; k < G; k += 4) {
-            s0 = fmaf(dg_s[k * R + r], __ldg(wd + k), s0);
-            s1 = fmaf(dg_s[(k + 1) * R + r], __ldg(wd + k + 1), s1);
-            s2 = fmaf(dg_s[(k + 2) * R + r], __ldg(wd + k + 2), s2);
-            s3 = fmaf(dg_s[(k + 3) * R + r], __ldg(wd + k + 3), s3);
-          }
-          dxs[(row * T + t) * D + d] = (s0 + s1) + (s2 + s3);
-        }
+        input_grad(dg_s, a.w[0], D, G, R, row0, B, tid, nthr,
+                   [&](int r, int d, float dx) {
+                     dxs[((row0 + r) * T + t) * D + d] = dx;
+                   });
       }
       __syncthreads();  // dg_s is read by everyone before it is overwritten
     }
@@ -451,157 +224,6 @@ __global__ void __launch_bounds__(256)
       F::st4(dh0 + ((size_t)l * B + row) * H + j0, vh);
       F::st4(dc0 + ((size_t)l * B + row) * H + j0, vc);
     }
-}
-
-// ---------------------------------------------------------------------------
-// dW / db reduction
-// ---------------------------------------------------------------------------
-
-struct DwArgs {
-  const float* xs;     // (B, T, D): z's input part for layer 0
-  const float* h0;     // (B, H) this layer's initial h
-  const void* hs;      // (B, T, H) this layer's residual h
-  const void* cs_in;   // (B, T, H) the layer below's c; null for layer 0
-  const void* gs_in;   // (B, T, 4H) the layer below's gates; null for layer 0
-  const float* dg;     // (B, T, 4H) this layer's dgates
-};
-
-// The reduction orders z's features h first: feature f < H is h_{t-1}[f],
-// H <= f < H + in is input_t[f - H], so the h part is whole float4 runs at
-// any input width; feature H + in is the constant 1, whose row of the
-// product is db. Output row of feature f: f < H ? in + f : f - H (db is
-// row in + H, after dW).
-//
-// z[q][f .. f + 3] of row q = b * T + t (zero past the features)
-template <typename RT>
-__device__ __forceinline__ void z_quad(const DwArgs& a, int q, int f, int T,
-                                       int D, int H, int in, float (&v)[4]) {
-  if (f < H) {
-    const int b = q / T;
-    if (q - b * T > 0)
-      Res<RT>::ld4(static_cast<const RT*>(a.hs) + (size_t)(q - 1) * H + f, v);
-    else
-      F::ld4(a.h0 + (size_t)b * H + f, v);
-  } else if (f - H >= in) {  // the constant feature of db
-    v[0] = f - H == in ? 1.0f : 0.0f;
-    v[1] = v[2] = v[3] = 0.0f;
-  } else if (a.gs_in != nullptr) {  // o·tanh(c) of the layer below
-    const int m = f - H;
-    float o[4], c[4];
-    Res<RT>::ld4(static_cast<const RT*>(a.gs_in) + (size_t)q * 4 * H + 3 * H + m, o);
-    Res<RT>::ld4(static_cast<const RT*>(a.cs_in) + (size_t)q * H + m, c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = o[i] * tanhf(c[i]);
-  } else {  // xs, D floats a row
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = f - H + i;
-      v[i] = m < in ? a.xs[(size_t)q * D + m] : (m == in ? 1.0f : 0.0f);
-    }
-  }
-}
-
-#define DW_Q (DW_K * DW_T / 4 / 256)  // float4 runs of each operand a thread loads
-
-// Block (n tile, f tile, slice s): partial[s][row(f)][n] = sum over the
-// slice's rows q of z[q][f] * dg[q][n], for the M + 1 features of z and the
-// constant (M = in + H).
-template <typename RT>
-__global__ void __launch_bounds__(256, 2)
-    lstm_dw_partial_kernel(const DwArgs a, float* __restrict__ partial, int B,
-                           int T, int D, int H, int in, int chunk) {
-  __shared__ __align__(16) float As[DW_K][DW_T];
-  __shared__ __align__(16) float Bs[DW_K][DW_T];
-  const int N = 4 * H, M = in + H;  // features: M, and the constant
-  const int n0 = blockIdx.x * DW_T, f0 = blockIdx.y * DW_T;
-  const int Q = B * T;
-  const int q_begin = blockIdx.z * chunk;
-  const int q_end = min(q_begin + chunk, Q);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const bool active = f0 + ty * 4 <= M;  // warps past a short last tile rest
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  // run e = tid + 256 * i of a stage: row kk = e / 32, columns 4 * (e % 32)
-  float za[DW_Q][4], ga[DW_Q][4];
-  int q0 = q_begin;
-#define DW_LOAD                                                                \
-  _Pragma("unroll") for (int i = 0; i < DW_Q; ++i) {                           \
-    const int e = tid + 256 * i, q = q0 + e / 32, c = 4 * (e % 32);            \
-    za[i][0] = za[i][1] = za[i][2] = za[i][3] = 0.0f;                          \
-    ga[i][0] = ga[i][1] = ga[i][2] = ga[i][3] = 0.0f;                          \
-    if (q < q_end) {                                                           \
-      if (f0 + c <= M) z_quad<RT>(a, q, f0 + c, T, D, H, in, za[i]);           \
-      F::ld4(a.dg + (size_t)q * N + n0 + c, ga[i]);                            \
-    }                                                                          \
-  }
-  if (q0 < q_end) {
-    DW_LOAD
-  }
-  for (; q0 < q_end;) {
-#pragma unroll
-    for (int i = 0; i < DW_Q; ++i) {
-      const int e = tid + 256 * i;
-      F::st4(&As[e / 32][4 * (e % 32)], za[i]);
-      F::st4(&Bs[e / 32][4 * (e % 32)], ga[i]);
-    }
-    __syncthreads();
-    q0 += DW_K;
-    if (q0 < q_end) {  // in flight during the FMAs below
-      DW_LOAD
-    }
-    if (active) {
-#pragma unroll
-      for (int kk = 0; kk < DW_K; ++kk) {
-        float av[8], bv[8];
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-        av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
-        av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
-        bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-        bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-#undef DW_LOAD
-
-  float* P = partial + (size_t)blockIdx.z * (M + 1) * N;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int f = f0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (f > M) continue;
-    const int m = f < H ? in + f : f < M ? f - H : M;  // output row
-    *reinterpret_cast<float4*>(P + (size_t)m * N + n0 + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(P + (size_t)m * N + n0 + 64 + tx * 4) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
-}
-
-// dw[i] (i < M*N) and db[i - M*N] = sum over s, in order, of partial[s][i]
-__global__ void lstm_dw_sum_kernel(const float* __restrict__ partial, int S,
-                                   int MN, int N, float* __restrict__ dw,
-                                   float* __restrict__ db) {
-  const int total = MN + N;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int k = 0; k < S; ++k) s += partial[(size_t)k * total + i];
-    if (i < MN)
-      dw[i] = s;
-    else
-      db[i - MN] = s;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -718,31 +340,18 @@ int lstm_dw(const void* xs, const void* h0, const void* const* hs,
       (long long)batch * t_len >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int Q = batch * t_len, N = 4 * hidden;
-  int chunk = (Q + splits - 1) / splits;
-  chunk = (chunk + DW_K - 1) / DW_K * DW_K;
-  float* part = static_cast<float*>(partial);
   for (int l = 0; l < layers; ++l) {
-    DwArgs a;
+    DwArgs a = {};
     a.xs = static_cast<const float*>(xs);
     a.h0 = static_cast<const float*>(h0) + (size_t)l * batch * hidden;
     a.hs = hs[l];
     a.cs_in = l > 0 ? cs[l - 1] : nullptr;
     a.gs_in = l > 0 ? gs[l - 1] : nullptr;
     a.dg = static_cast<const float*>(dg[l]);
-    const int in = l == 0 ? d : hidden, M = in + hidden;
-    const dim3 grid(N / DW_T, (M + 1 + DW_T - 1) / DW_T, splits);
-    if (bf16)
-      lstm_dw_partial_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
-          a, part, batch, t_len, d, hidden, in, chunk);
-    else
-      lstm_dw_partial_kernel<float><<<grid, 256, 0, st>>>(
-          a, part, batch, t_len, d, hidden, in, chunk);
-    const int total = (M + 1) * N;
-    lstm_dw_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(
-        part, splits, M * N, N, static_cast<float*>(dw[l]),
-        static_cast<float*>(db[l]));
-    const cudaError_t e = cudaGetLastError();
+    const cudaError_t e = dw_layer(
+        a, static_cast<float*>(partial), static_cast<float*>(dw[l]),
+        static_cast<float*>(db[l]), batch, t_len, d, hidden,
+        l == 0 ? d : hidden, splits, bf16 != 0, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;

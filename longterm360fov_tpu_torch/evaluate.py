@@ -3,8 +3,9 @@
 PyTorch twin of ``longterm360fov_tpu.evaluate``: decode a test split
 autoregressively and report the mean great-circle error in degrees per
 future step. :func:`evaluate` decodes through ``infer.predict_xyz`` with an
-explicit ``impl``: ``"fused"`` is the ``fused_serve`` kernel on the card
-(its plain version on the CPU), ``"plain"`` the step loop.
+explicit ``impl``: ``"fused"`` is the family's ``serve_fused`` (its serving
+kernels on the card, their plain versions on the CPU), ``"plain"`` the step
+loop.
 """
 
 from __future__ import annotations
@@ -28,9 +29,9 @@ def evaluate(
     impl: str,
     batch_size: Optional[int] = None,
 ) -> Dict:
-    """Decode ``data`` {"past": (N, H_in, 3), "future": (N, H_out, 3),
-    optional "context"} in batches on the device of ``params`` and
-    aggregate the error curve."""
+    """Decode ``data`` {"past": (N, H_in, 3), "future": (N, H_out, 3), and
+    any family extras ("context", "other_future", "other_mask")} in batches
+    on the device of ``params`` and aggregate the error curve."""
     from . import infer
     from .models import get_family
 
@@ -42,8 +43,8 @@ def evaluate(
     with torch.inference_mode():
         for i in range(0, n, bs):
             batch = {
-                k: torch.as_tensor(data[k][i:i + bs], device=device)
-                for k in ("past", "context") if data.get(k) is not None
+                k: torch.as_tensor(v[i:i + bs], device=device)
+                for k, v in data.items() if k != "future" and v is not None
             }
             pred = infer.predict_xyz(params, cfg, fam, batch, impl=impl)
             fut = torch.as_tensor(data["future"][i:i + bs], device=device)

@@ -32,15 +32,20 @@ IMPLS = ("fused", "plain")
 
 
 def predict_xyz(params, cfg: ExperimentConfig, fam, batch: Dict, *, impl: str):
-    """Shared serve core: ``batch`` {"past": (B, H_in, 3) raw xyz, and an
-    optional per-viewer "context"} of tensors → (B, H_out, 3) predicted unit
-    vectors. ``impl`` is one of ``IMPLS``, as ``make_predict_fn`` and
+    """Shared serve core: ``batch`` {"past": (B, H_in, 3) raw xyz, and the
+    family's extras: an optional per-viewer "context", or the cross_user
+    "other_future" (B, K, H_out, 3) and "other_mask" (B, K)} of tensors →
+    (B, H_out, 3) predicted unit vectors. The family's ``batch_extras``
+    (else ``train.default_extras``) turns the extras into keyword arguments
+    of the forward. ``impl`` is one of ``IMPLS``, as ``make_predict_fn`` and
     ``serving.make_serve_fn`` check."""
+    from .train import default_extras
+
     past_n, _, anchor = windows.normalize_window(batch["past"])
     # the result keeps the input's strides (np.concatenate of (1, T, 3)
     # rows may give a column-major batch); the kernel reads rows in place
     past_n = past_n.contiguous()
-    kwargs = {"context": batch["context"]} if "context" in batch else {}
+    kwargs = (getattr(fam, "batch_extras", None) or default_extras)(batch, anchor)
     if impl == "fused":
         pred_n = fam.serve_fused(params, cfg.model, past_n, **kwargs)
     else:
@@ -55,10 +60,12 @@ def make_predict_fn(
 ) -> Callable:
     """Close over params/config → ``serve(past, context=None)``.
 
-    ``past`` is a (B, H_in, 3) array or tensor of raw xyz windows; it is
-    moved to ``device``, where ``params`` must already be. Returns the
-    (B, H_out, 3) predicted xyz, and with ``with_tiles`` also the
-    (B, H_out, R*C) per-step prefetch mask."""
+    ``past`` is a (B, H_in, 3) array or tensor of raw xyz windows, or a
+    batch dict with "past" and the family's extras (the cross_user
+    "other_future" and "other_mask"); everything is moved to ``device``,
+    where ``params`` must already be. Returns the (B, H_out, 3) predicted
+    xyz, and with ``with_tiles`` also the (B, H_out, R*C) per-step prefetch
+    mask."""
     device = torch.device(device)
     fam = get_family(cfg.model_family)
     if impl not in IMPLS:
@@ -66,11 +73,13 @@ def make_predict_fn(
 
     @torch.inference_mode()
     def serve(past, context=None):
-        batch = {"past": torch.as_tensor(past, dtype=torch.float32, device=device)}
+        batch = dict(past) if isinstance(past, dict) else {"past": past}
         if context is not None:
-            batch["context"] = torch.as_tensor(
-                context, dtype=torch.float32, device=device
-            )
+            batch["context"] = context
+        batch = {
+            k: torch.as_tensor(v, dtype=torch.float32, device=device)
+            for k, v in batch.items() if v is not None
+        }
         xyz = predict_xyz(params, cfg, fam, batch, impl=impl)
         if not with_tiles:
             return xyz

@@ -2,19 +2,22 @@
 
 Every family exposes ``init(gen, cfg, *, device) -> params`` and
 ``apply(params, cfg, past_n, future_n=None, *, ...) -> (B, H_out, D)``, as
-in ``longterm360fov_tpu.models``. Only the seq2seq LSTM family is ported.
+in ``longterm360fov_tpu.models``. The seq2seq LSTM and cross_user families
+are ported.
 """
 
 from __future__ import annotations
 
-from . import cell, seq2seq  # noqa: F401
+from . import cell, cross_user, seq2seq  # noqa: F401
 
 
 def get_family(name: str):
     """Resolve a model family → module with (init, apply)."""
     if name in ("seq2seq", "lstm", "stacked"):
         return seq2seq
-    if name in ("cross_user", "fusion", "transformer"):
+    if name == "cross_user":
+        return cross_user
+    if name in ("fusion", "transformer"):
         raise NotImplementedError(
             f"model family {name!r} is not ported yet (ROADMAP.md, slice "
             f"{name!r})"

@@ -2,11 +2,12 @@
 
 PyTorch twin of ``longterm360fov_tpu.models.seq2seq``: an LSTM encoder
 consumes the observed (past) window; an LSTM decoder emits the future
-horizon, autoregressively or teacher-forced. The scans of the JAX version
-are Python loops over time here; the serving hot loop is one CUDA kernel
-(:func:`serve_fused`, ``ops.fused_lstm.fused_serve``), and the teacher-forced
-training forward and backward run on the kernels of ``ops.lstm_train``
-(:func:`apply_fused_tf`).
+horizon, autoregressively, teacher-forced or with scheduled sampling. The
+scans of the JAX version are Python loops over time here; the serving hot
+loop is one CUDA kernel (:func:`serve_fused`, ``ops.fused_lstm.fused_serve``),
+the teacher-forced training forward and backward run on the kernels of
+``ops.lstm_train`` (:func:`apply_fused_tf`), and the scheduled-sampling
+decoder on those of ``ops.lstm_ss`` (:func:`apply_fused_ss`).
 
 Params are a plain dict, the JAX pytree's structure:
 ``{"encoder": [LSTMParams], "decoder": [LSTMParams], "proj": {"w", "b"}}``.
@@ -22,7 +23,16 @@ import torch
 
 from .cell import init_lstm, lstm_cell
 
-__all__ = ["Seq2SeqConfig", "init", "apply", "decode", "apply_fused_tf", "serve_fused"]
+__all__ = [
+    "Seq2SeqConfig",
+    "init",
+    "apply",
+    "decode",
+    "draw_coins",
+    "apply_fused_tf",
+    "apply_fused_ss",
+    "serve_fused",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,13 +108,24 @@ def _project(params: Params, h: torch.Tensor) -> torch.Tensor:
     return h.float() @ params["proj"]["w"].float() + params["proj"]["b"].float()
 
 
+def draw_coins(gen: torch.Generator, teacher_prob: float, t_out: int, batch: int) -> torch.Tensor:
+    """Scheduled-sampling coins (t_out, B, 1) f32 on the generator's device:
+    1 (teacher input) with probability ``teacher_prob``, else 0. Drawn in one
+    call; ``jax.random`` draws per step from split keys, and the two give
+    different numbers, so parity tests pass explicit coins."""
+    if not isinstance(gen, torch.Generator):
+        raise TypeError(f"rng must be a torch.Generator, got {type(gen).__name__}")
+    u = torch.rand((t_out, batch, 1), generator=gen, device=gen.device)
+    return (u < teacher_prob).float()
+
+
 def apply(
     params: Params,
     cfg: Seq2SeqConfig,
     past_n: torch.Tensor,
     future_n: Optional[torch.Tensor] = None,
     *,
-    rng=None,
+    rng: Optional[torch.Generator] = None,
     teacher_prob: float = 1.0,
     context: Optional[torch.Tensor] = None,
     coins: Optional[torch.Tensor] = None,
@@ -117,18 +138,16 @@ def apply(
         true position at t-1;
       * ``future_n`` and ``coins`` (H_out, B, 1) given → scheduled sampling
         with explicit draws: teacher input where ``coins > 0``, else the
-        model's own previous output.
-    The rng-drawn scheduled-sampling mode raises: ``jax.random``'s draw
-    cannot be reproduced in torch, so parity needs explicit ``coins``.
+        model's own previous output;
+      * ``future_n`` and ``rng`` (a ``torch.Generator``) given → scheduled
+        sampling with coins drawn by :func:`draw_coins` at ``teacher_prob``,
+        then the explicit-coins mode.
 
     ``context``: optional (B, ctx_dim) vector appended to every decoder
     input, or (B, H_out, ctx_dim) where step t gets ``context[:, t]``.
     """
     if future_n is not None and coins is None and rng is not None:
-        raise NotImplementedError(
-            "scheduled sampling with an rng draw is not ported; pass explicit "
-            "coins (ROADMAP.md, slice 'scheduled sampling')"
-        )
+        coins = draw_coins(rng, teacher_prob, cfg.h_out, past_n.shape[0])
     dt = cfg.dtype
     states = _encode(params, cfg, past_n)
     y0 = past_n[:, -1].to(dt)  # last observed position
@@ -185,15 +204,18 @@ def apply_fused_tf(
     in teacher-forcing mode up to residual rounding: the saved residuals
     default to bf16, as in JAX; ``residual_dtype=torch.float32`` gives exact
     gradient parity. As in JAX, the decoder starts from the encoder's final
-    states read back from its residuals.
+    states read back from its residuals. A static ``context`` (B, ctx_dim)
+    joins every step's decoder input.
 
-    Not ported yet, and raising: a ``context`` (ROADMAP.md, slice
-    'cross_user') and bf16 ``compute_dtype`` (ROADMAP.md Queue 2, the
-    lstm_seq_states bf16-compute tier)."""
-    if context is not None:
+    Not ported yet, and raising: a per-step (B, H_out, ctx_dim) context
+    (the cross_user ``peer_align`` tier, ROADMAP.md, preset
+    stacked-ss-crossuser-10s) and bf16 ``compute_dtype`` (ROADMAP.md Queue
+    2, the lstm_seq_states bf16-compute tier)."""
+    if context is not None and context.dim() != 2:
         raise NotImplementedError(
-            "apply_fused_tf: a decoder context is not ported yet "
-            "(ROADMAP.md, slice 'cross_user')"
+            "apply_fused_tf: a per-step (B, H_out, C) context is the cross_user "
+            "peer_align tier, not ported yet (ROADMAP.md, preset "
+            "stacked-ss-crossuser-10s)"
         )
     # imported here: ops.lstm_train imports models.cell, whose package
     # imports this module
@@ -207,10 +229,57 @@ def apply_fused_tf(
     )
     y0 = past_n[:, -1:].float()
     teacher_in = torch.cat([y0, future_n[:, :-1].float()], dim=1)
+    if context is not None:
+        ctx = context[:, None, :].float().expand(batch, teacher_in.shape[1], -1)
+        teacher_in = torch.cat([teacher_in, ctx], dim=-1)
     hs_dec, _, _ = lstm_seq_states(
-        params["decoder"], teacher_in, hT, cT, residual_dtype, compute_dtype
+        params["decoder"], teacher_in.contiguous(), hT, cT, residual_dtype, compute_dtype
     )
     return _project(params, hs_dec).float()
+
+
+def apply_fused_ss(
+    params: Params,
+    cfg: Seq2SeqConfig,
+    past_n: torch.Tensor,
+    future_n: torch.Tensor,
+    *,
+    rng: Optional[torch.Generator] = None,
+    teacher_prob: float = 1.0,
+    context: Optional[torch.Tensor] = None,
+    coins: Optional[torch.Tensor] = None,
+    residual_dtype: torch.dtype = torch.bfloat16,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Scheduled-sampling training forward on the kernels: the encoder on
+    ``ops.lstm_train.lstm_seq_states``, the decoder with its per-step
+    teacher/model mixing and its backward on ``ops.lstm_ss.ss_decode``.
+    Matches :func:`apply` given the same coins, up to residual rounding
+    (bf16 residuals by default, as in JAX). The coins are ``coins``
+    (H_out, B, 1), or drawn from ``rng`` at ``teacher_prob`` as
+    :func:`apply` draws them."""
+    from ..ops.lstm_ss import ss_decode
+    from ..ops.lstm_train import lstm_seq_states
+
+    batch = past_n.shape[0]
+    z = past_n.new_zeros((cfg.layers, batch, cfg.hidden), dtype=torch.float32)
+    _, hT, cT = lstm_seq_states(
+        params["encoder"], past_n.float().contiguous(), z, z, residual_dtype,
+        compute_dtype,
+    )
+    y0 = past_n[:, -1].float()
+    fut_tm = future_n.float().transpose(0, 1)
+    teacher_tm = torch.cat([y0[None], fut_tm[:-1]], dim=0)
+    if coins is None:
+        if rng is None:
+            raise ValueError("apply_fused_ss needs rng or explicit coins")
+        coins = draw_coins(rng, teacher_prob, cfg.h_out, batch)
+    ctx = None if context is None else context.float().contiguous()
+    return ss_decode(
+        params["decoder"], params["proj"]["w"].float(), params["proj"]["b"].float(),
+        hT, cT, y0.contiguous(), teacher_tm.contiguous(), (coins.float(), ctx),
+        residual_dtype, compute_dtype,
+    )
 
 
 def serve_fused(
@@ -223,7 +292,8 @@ def serve_fused(
 ) -> torch.Tensor:
     """Whole-request fused serve: encoder AND decoder in one kernel launch
     (``ops.fused_lstm.fused_serve``) on CUDA tensors, its plain version on
-    CPU tensors."""
+    CPU tensors. A static ``context`` (B, ctx_dim) joins the decoder's
+    layer-0 input."""
     # imported here: ops.fused_lstm imports models.cell, whose package
     # imports this module
     from ..ops.fused_lstm import fused_serve
@@ -235,6 +305,6 @@ def serve_fused(
         params["proj"]["b"],
         past_n,
         cfg.h_out,
-        context=context,
+        context=None if context is None else context.float().contiguous(),
         compute_dtype=compute_dtype,
     )

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes``. The build happens at first use,
 from the sources in this checkout only, into ``build/torch_kernels/`` beside
 the package (listed in ``.gitignore``). The library's file name carries a hash
-of the source and the flags, so an edited source builds anew and an unchanged
-one is loaded from the cache.
+of the source, the headers of ``csrc/`` and the flags, so an edited source or
+header builds anew and an unchanged one is loaded from the cache.
 
 Nothing here runs when the module is imported: the CPU tests import every
 module of the package, and the CPU machine has no ``nvcc``.
@@ -58,7 +58,8 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and every header of csrc/ it may include
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 

@@ -1,15 +1,20 @@
-"""Whole-request fused LSTM serve: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Whole-request fused LSTM serve and whole-sequence fused encode: the
+hand-written CUDA kernels and their plain PyTorch versions.
 
-Twin of ``longterm360fov_tpu.ops.fused_lstm.fused_serve`` in its no-context
-f32 tier: the L-layer encoder over the past window, then the T_out-step
-autoregressive decoder with projection and feedback, in one launch
-(``csrc/fused_serve.cu``, whose header says what bounds it on Hopper and what
-its design does about that).
+Twins of ``longterm360fov_tpu.ops.fused_lstm``:
 
-:func:`fused_serve` runs :func:`fused_serve_reference` on CPU tensors, and
-launches the kernel on CUDA tensors or raises. It never falls back.
-``fused_serve.launches`` counts kernel launches.
+* :func:`fused_serve`, in its no-context and static-context f32 tiers: the
+  L-layer encoder over the past window, then the T_out-step autoregressive
+  decoder with projection and feedback, in one launch; with a ``context``
+  (B, C) the decoder's layer-0 input is ``[y, ctx]``;
+* :func:`fused_encode`: an L-layer encoder over ``(B, T, D)`` from zero
+  state, returning only the final top-layer ``h`` (B, H).
+
+Both kernels live in ``csrc/fused_serve.cu``, whose header says what bounds
+them on Hopper and what their design does about that. Each wrapper runs its
+plain version (:func:`fused_serve_reference`, :func:`fused_encode_reference`)
+on CPU tensors, and launches its kernel on CUDA tensors or raises. It never
+falls back. ``.launches`` counts each wrapper's kernel launches.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from . import _build
 __all__ = [
     "fused_serve",
     "fused_serve_reference",
+    "fused_encode",
+    "fused_encode_reference",
     "kernel_rows",
     "exact_f32_matmul",
 ]
@@ -52,28 +59,18 @@ def fused_serve_reference(
     proj_b: torch.Tensor,
     past_n: torch.Tensor,
     t_out: int,
+    context=None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (B, T_in, D) normalized past →
-    (B, t_out, D) normalized predictions, step by step. On the card it
-    needs exact f32 products (:func:`exact_f32_matmul`) and raises under
-    TF32."""
-    if past_n.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "fused_serve_reference: TF32 matmul is on; call "
-            "exact_f32_matmul() first"
-        )
-    batch, t_in, _ = past_n.shape
-    zero = past_n.new_zeros((batch, proj_w.shape[0]))
-    states = [(zero, zero) for _ in enc_params]
-    for t in range(t_in):
-        inp = past_n[:, t]
-        for l, p in enumerate(enc_params):
-            states[l] = lstm_cell(p, inp, states[l])
-            inp = states[l][0]
+    """Plain PyTorch version of the serve kernel: (B, T_in, D) normalized
+    past, and optionally a (B, C) context → (B, t_out, D) normalized
+    predictions, step by step. On the card it needs exact f32 products
+    (:func:`exact_f32_matmul`) and raises under TF32."""
+    _no_tf32(past_n, "fused_serve_reference")
+    states = _encode_states(enc_params, past_n)
     y = past_n[:, -1]
     ys = []
     for _ in range(t_out):
-        inp = y
+        inp = y if context is None else torch.cat([y, context], dim=-1)
         for l, p in enumerate(dec_params):
             states[l] = lstm_cell(p, inp, states[l])
             inp = states[l][0]
@@ -82,17 +79,43 @@ def fused_serve_reference(
     return torch.stack(ys, dim=1)
 
 
-def kernel_rows(hidden: int, layers: int, d: int) -> int:
+def _no_tf32(t: torch.Tensor, name: str):
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(f"{name}: TF32 matmul is on; call exact_f32_matmul() first")
+
+
+def _encode_states(params: Sequence[LSTMParams], xs: torch.Tensor):
+    """The stacked LSTM over xs (B, T, D) from zero state → final (h, c) per
+    layer, step by step."""
+    zero = xs.new_zeros((xs.shape[0], params[0].w.shape[1] // 4))
+    states = [(zero, zero) for _ in params]
+    for t in range(xs.shape[1]):
+        inp = xs[:, t]
+        for l, p in enumerate(params):
+            states[l] = lstm_cell(p, inp, states[l])
+            inp = states[l][0]
+    return states
+
+
+def fused_encode_reference(params: Sequence[LSTMParams], xs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the encode kernel: (B, T, D) → the final
+    top-layer h (B, H), step by step."""
+    _no_tf32(xs, "fused_encode_reference")
+    return _encode_states(params, xs)[-1][0]
+
+
+def kernel_rows(hidden: int, layers: int, d: int, ctx_dim: int = 0) -> int:
     """Batch rows per block: as many as 256 threads of 8 rows x 4 hidden
     units cover, halved until the block's shared memory (h and c of every
-    layer, and the layer-0 input) fits. Raises for shapes the kernel does
-    not take."""
+    layer, and the layer-0 input: ``d`` floats a row, and ``ctx_dim`` more
+    for the decoder's static context) fits. Raises for shapes the kernel
+    does not take."""
     if hidden < 32 or hidden % 32:
         raise ValueError(f"the kernel needs hidden % 32 == 0, got {hidden}")
     if not 1 <= layers <= MAX_LAYERS:
         raise ValueError(f"the kernel takes 1..{MAX_LAYERS} layers, got {layers}")
     rows = min(64, _MAX_THREADS // (hidden // _TJ) * _TR)
-    while rows >= _TR and 4 * (2 * layers * hidden + d) * rows > _SMEM_LIMIT:
+    while rows >= _TR and 4 * (2 * layers * hidden + d + ctx_dim) * rows > _SMEM_LIMIT:
         rows //= 2
     if rows < _TR:
         raise ValueError(
@@ -102,12 +125,26 @@ def kernel_rows(hidden: int, layers: int, d: int) -> int:
     return rows
 
 
-def _check(enc_params, dec_params, proj_w, proj_b, past_n, t_out):
+def _check_tensors(expect, device):
+    for t, shape in expect:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the f32 tier takes float32 tensors, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"tensors on {t.device} and {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"tensor of shape {shape} is not contiguous")
+    return [t for t, _ in expect]
+
+
+def _check(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context):
     if past_n.dim() != 3:
         raise ValueError(f"past_n must be (B, T_in, D), got {tuple(past_n.shape)}")
     batch, t_in, d = past_n.shape
     hidden = proj_w.shape[0]
     layers = len(enc_params)
+    ctx_dim = 0 if context is None else context.shape[-1]
     if batch < 1 or t_in < 1 or t_out < 1:
         raise ValueError(f"empty request: past_n {tuple(past_n.shape)}, t_out {t_out}")
     if len(dec_params) != layers or layers < 1:
@@ -118,19 +155,13 @@ def _check(enc_params, dec_params, proj_w, proj_b, past_n, t_out):
     expect = []
     for l in range(layers):
         in_l = d if l == 0 else hidden
-        for p in (enc_params[l], dec_params[l]):
-            expect += [(p.w, (in_l + hidden, 4 * hidden)), (p.b, (4 * hidden,))]
+        expect += [(enc_params[l].w, (in_l + hidden, 4 * hidden)), (enc_params[l].b, (4 * hidden,))]
+        in_l += ctx_dim if l == 0 else 0  # the decoder's layer 0 takes [y, ctx]
+        expect += [(dec_params[l].w, (in_l + hidden, 4 * hidden)), (dec_params[l].b, (4 * hidden,))]
     expect += [(proj_w, (hidden, d)), (proj_b, (d,)), (past_n, (batch, t_in, d))]
-    for t, shape in expect:
-        if tuple(t.shape) != shape:
-            raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the f32 tier takes float32 tensors, got {t.dtype}")
-        if t.device != past_n.device:
-            raise ValueError(f"tensors on {t.device} and {past_n.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"tensor of shape {shape} is not contiguous")
-    return [t for t, _ in expect]
+    if context is not None:
+        expect.append((context, (batch, ctx_dim)))
+    return _check_tensors(expect, past_n.device)
 
 
 def fused_serve(
@@ -151,14 +182,16 @@ def fused_serve(
     """Whole serve request, encode and autoregressive decode, in one kernel
     launch → (B, t_out, D) f32 normalized predictions.
 
-    Same shapes and semantics as the JAX ``fused_serve``. The JAX tiers this
-    port does not have yet raise: a static ``context`` and the lockstep
-    ``peer_*`` tier, the bf16 ``compute_dtype`` and the ``_probe`` modes."""
-    if context is not None or peer_params is not None or peer_xs is not None \
-            or peer_w is not None:
+    Same shapes and semantics as the JAX ``fused_serve``, in the no-context
+    and the static-context tier: a ``context`` (B, C) fills the decoder's
+    layer-0 input as ``[y, ctx]``. The JAX tiers this port does not have yet
+    raise: the lockstep ``peer_*`` tier, the bf16 ``compute_dtype`` and the
+    ``_probe`` modes."""
+    if peer_params is not None or peer_xs is not None or peer_w is not None:
         raise NotImplementedError(
-            "fused_serve: the context and lockstep-peer tiers are not ported "
-            "yet (ROADMAP.md, slice 'cross_user')"
+            "fused_serve: the lockstep-peer tier is not ported yet "
+            "(ROADMAP.md Queue 2, fused_serve(peer_xs=...), preset "
+            "stacked-ss-crossuser-10s)"
         )
     if compute_dtype != torch.float32:
         raise NotImplementedError(
@@ -169,40 +202,29 @@ def fused_serve(
         raise NotImplementedError(
             "fused_serve: the roofline _probe modes are not ported"
         )
-    tensors = _check(enc_params, dec_params, proj_w, proj_b, past_n, t_out)
-    if past_n.device.type == "cpu":
+    tensors = _check(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context)
+    if not _on_card(past_n, tensors, "fused_serve"):
         return fused_serve_reference(
-            enc_params, dec_params, proj_w, proj_b, past_n, t_out
+            enc_params, dec_params, proj_w, proj_b, past_n, t_out, context
         )
-    if past_n.device.type != "cuda":
-        raise ValueError(f"fused_serve runs on cpu or cuda, not {past_n.device}")
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError("the kernel reads 16-byte vectors: tensors must be 16-byte aligned")
-
     batch, t_in, d = past_n.shape
     hidden, layers = proj_w.shape[0], len(enc_params)
-    rows = kernel_rows(hidden, layers, d)
+    ctx_dim = 0 if context is None else context.shape[-1]
+    if ctx_dim % 4:
+        raise ValueError(f"the kernel reads the context as 16-byte rows: ctx_dim % 4 == 0, got {ctx_dim}")
+    rows = kernel_rows(hidden, layers, d, ctx_dim)
     lib = _library()
     out = torch.empty((batch, t_out, d), device=past_n.device, dtype=torch.float32)
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * layers)(*[t.data_ptr() for t in ts])
-
     with torch.cuda.device(past_n.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_serve_f32(
-            past_n.data_ptr(), out.data_ptr(),
-            ptrs([p.w for p in enc_params]), ptrs([p.b for p in enc_params]),
-            ptrs([p.w for p in dec_params]), ptrs([p.b for p in dec_params]),
+            past_n.data_ptr(), None if context is None else context.data_ptr(), out.data_ptr(),
+            _ptrs([p.w for p in enc_params]), _ptrs([p.b for p in enc_params]),
+            _ptrs([p.w for p in dec_params]), _ptrs([p.b for p in dec_params]),
             proj_w.data_ptr(), proj_b.data_ptr(),
-            batch, t_in, t_out, d, hidden, layers, rows, stream,
+            batch, t_in, t_out, d, ctx_dim, hidden, layers, rows,
+            torch.cuda.current_stream().cuda_stream,
         )
-    if err:
-        raise RuntimeError(
-            f"fused_serve kernel launch failed: "
-            f"{lib.fused_serve_error_string(err).decode()} (cuda error {err})"
-        )
+    _raise_on(err, "fused_serve")
     fused_serve.launches += 1
     return out
 
@@ -210,17 +232,85 @@ def fused_serve(
 fused_serve.launches = 0
 
 
+def fused_encode(
+    params: Sequence[LSTMParams],
+    xs: torch.Tensor,  # (B, T, D)
+    *,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """Whole-sequence L-layer LSTM encode from zero state → the final
+    top-layer hidden state (B, H) f32, in one kernel launch; nothing is
+    saved per step (inference only: ``ops.lstm_train.lstm_seq`` is the
+    differentiable path). Same shapes and semantics as the JAX
+    ``fused_encode``; its bf16 ``compute_dtype`` raises."""
+    if compute_dtype != torch.float32:
+        raise NotImplementedError(
+            f"fused_encode: only the exact f32 tier is ported, got "
+            f"compute_dtype={compute_dtype} (ROADMAP.md Queue 2 #1, the bf16 tier)"
+        )
+    if xs.dim() != 3 or min(xs.shape) < 1 or not params:
+        raise ValueError(f"xs must be a non-empty (B, T, D) with >= 1 layer, got {tuple(xs.shape)}")
+    batch, t_len, d = xs.shape
+    hidden, layers = params[0].w.shape[1] // 4, len(params)
+    expect = [(xs, (batch, t_len, d))]
+    for l, p in enumerate(params):
+        in_l = d if l == 0 else hidden
+        expect += [(p.w, (in_l + hidden, 4 * hidden)), (p.b, (4 * hidden,))]
+    tensors = _check_tensors(expect, xs.device)
+    if not _on_card(xs, tensors, "fused_encode"):
+        return fused_encode_reference(params, xs)
+    rows = kernel_rows(hidden, layers, d)
+    lib = _library()
+    out = torch.empty((batch, hidden), device=xs.device, dtype=torch.float32)
+    with torch.cuda.device(xs.device):
+        err = lib.fused_encode_f32(
+            xs.data_ptr(), out.data_ptr(),
+            _ptrs([p.w for p in params]), _ptrs([p.b for p in params]),
+            batch, t_len, d, hidden, layers, rows,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "fused_encode")
+    fused_encode.launches += 1
+    return out
+
+
+fused_encode.launches = 0
+
+
+def _on_card(x: torch.Tensor, tensors, name: str) -> bool:
+    """False for CPU tensors (the caller runs the plain version); True for
+    CUDA tensors the kernel can read; raises otherwise."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("the kernel reads 16-byte vectors: tensors must be 16-byte aligned")
+    return True
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def _raise_on(err: int, name: str):
+    if err:
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            f"{_library().fused_serve_error_string(err).decode()} (cuda error {err})"
+        )
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
-    """The kernel's library, built at first use and loaded once."""
+    """The kernels' library, built at first use and loaded once."""
     lib = _build.load("fused_serve")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
-    lib.fused_serve_f32.argtypes = [
-        vp, vp, arr, arr, arr, arr, vp, vp,
-        i32, i32, i32, i32, i32, i32, i32, vp,
-    ]
-    lib.fused_serve_f32.restype = i32
+    lib.fused_serve_f32.argtypes = [vp, vp, vp, arr, arr, arr, arr, vp, vp] + [i32] * 8 + [vp]
+    lib.fused_encode_f32.argtypes = [vp, vp, arr, arr] + [i32] * 6 + [vp]
+    lib.fused_serve_f32.restype = lib.fused_encode_f32.restype = i32
     lib.fused_serve_error_string.argtypes = [i32]
     lib.fused_serve_error_string.restype = ctypes.c_char_p
     return lib

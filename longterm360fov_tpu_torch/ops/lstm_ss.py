@@ -1,0 +1,579 @@
+"""Scheduled-sampling LSTM decoder for training: hand-written CUDA forward
+and backward kernels, their plain PyTorch versions, and the autograd
+function that joins them.
+
+Twin of ``longterm360fov_tpu.ops.lstm_ss``: :func:`ss_decode` runs the
+decoder of a scheduled-sampling seq2seq from the encoder's final states
+``h0, c0 (L, B, H)`` and the last observed position ``y0 (B, D)``. At step t
+its layer-0 input is ``[x_t, ctx]`` with ``x_t = teacher_t`` where
+``coin_t > 0`` and ``y_{t-1}`` (the model's own previous output, ``y0`` at
+t = 0) elsewhere; L stacked cells follow, then ``y_t = h_top · proj_w +
+proj_b``, which is fed back. It returns ``ys (B, T, D)`` f32. Coins arrive
+as an explicit ``(T, B, 1)`` array; ``teacher_tm`` is ``(T, B, D)``, as in
+JAX.
+
+Four kernels of ``csrc/lstm_ss.cu`` carry it on the card:
+
+* :func:`ss_fwd`, the forward recurrence: ``ys`` f32 and, per layer, the
+  residuals ``hs``, ``cs (B, T, H)`` and the gates ``(B, T, 4H)`` in
+  ``residual_dtype``;
+* :func:`ss_bwd`, the backward recurrence in reverse time: the total
+  gradient ``dy`` of every ``y_t`` (upstream plus the feedback from step
+  t + 1), ``dgates`` per layer, ``dteacher (T, B, D)``, ``dy0``, ``dh0``,
+  ``dc0`` and ``dctx``;
+* :func:`ss_dw`, the dW/db reduction of ``lstm_train``'s kernel with layer
+  0's ``z = [x_t, ctx, h_{t-1}]``, ``x_t`` rebuilt from the coins, the
+  teacher and the f32 ``ys`` (``y0`` at t = 0), as the TPU backward rebuilds
+  it;
+* :func:`ss_dproj`, ``dproj_w = Σ h_topᵀ·dy`` and ``dproj_b = Σ dy`` with
+  ``h_top`` read from the residuals (bf16-rounded with bf16 residuals).
+
+Every sum across rows is split into slices whose partial sums a second pass
+adds in a fixed order: no float atomics, so two runs give the same bits.
+Each wrapper runs its plain version (``_forward_reference``,
+``_bwd_recurrence_reference``, ``_dw_reference``, ``_dproj_reference``) on
+CPU tensors, and launches its kernel on CUDA tensors or raises; it never
+falls back. Each counts its kernel launches in ``.launches``.
+:func:`ss_decode_reference` is the decoder as a step loop of
+``cell.lstm_cell``, whose gradient torch autograd gives.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..models.cell import LSTMParams, lstm_cell
+from . import _build
+from .lstm_train import (
+    RESIDUAL_DTYPES,
+    Residuals,
+    _check_card,
+    _dw_reference as _lstm_dw_reference,
+    _n_sm,
+    _no_tf32,
+    _ptrs,
+    dw_splits,
+    kernel_rows as _lstm_kernel_rows,
+)
+
+__all__ = [
+    "ss_decode",
+    "ss_decode_reference",
+    "ss_fwd",
+    "ss_bwd",
+    "ss_dw",
+    "ss_dproj",
+    "kernel_rows",
+]
+
+_SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use (227 KB)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def ss_decode_reference(
+    dec_params: Sequence[LSTMParams], proj_w: torch.Tensor, proj_b: torch.Tensor,
+    h0: torch.Tensor, c0: torch.Tensor, y0: torch.Tensor, teacher_tm: torch.Tensor,
+    coins_ctx: tuple,
+) -> torch.Tensor:
+    """The decoder as a step loop of ``cell.lstm_cell`` in f32, with no
+    residual rounding; torch autograd gives its gradient."""
+    coins, context = coins_ctx
+    _no_tf32(y0, "ss_decode_reference")
+    states = [(h0[l], c0[l]) for l in range(len(dec_params))]
+    y = y0
+    ys = []
+    for t in range(teacher_tm.shape[0]):
+        inp = torch.where(coins[t] > 0, teacher_tm[t], y)
+        if context is not None:
+            inp = torch.cat([inp, context], dim=-1)
+        for l, p in enumerate(dec_params):
+            states[l] = lstm_cell(p, inp, states[l])
+            inp = states[l][0]
+        y = inp @ proj_w + proj_b
+        ys.append(y)
+    return torch.stack(ys, dim=1)
+
+
+def _forward_reference(
+    params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, residual_dtype,
+) -> Tuple[torch.Tensor, Residuals]:
+    """Plain version of the forward kernel: the recurrence in f32 with f32
+    carries and the f32 feedback, every step's h, c and gates stored in
+    ``residual_dtype`` → (ys (B, T, D) f32, residuals)."""
+    _no_tf32(y0, "ss_fwd plain version")
+    t_len, batch, d = teacher_tm.shape
+    hidden = h0.shape[-1]
+    res = Residuals([], [], [])
+    for _ in params:
+        res.hs.append(y0.new_empty((batch, t_len, hidden), dtype=residual_dtype))
+        res.cs.append(y0.new_empty((batch, t_len, hidden), dtype=residual_dtype))
+        res.gs.append(y0.new_empty((batch, t_len, 4 * hidden), dtype=residual_dtype))
+    ys = y0.new_empty((batch, t_len, d))
+    h = list(h0.unbind(0))
+    c = list(c0.unbind(0))
+    y = y0
+    for t in range(t_len):
+        inp = torch.where(coins[t] > 0, teacher_tm[t], y)
+        if context is not None:
+            inp = torch.cat([inp, context], dim=-1)
+        for l, p in enumerate(params):
+            gates = torch.cat([inp, h[l]], dim=-1) @ p.w + p.b
+            i, f, g, o = gates.chunk(4, dim=-1)
+            i, f, g, o = i.sigmoid(), f.sigmoid(), g.tanh(), o.sigmoid()
+            c[l] = f * c[l] + i * g
+            h[l] = o * torch.tanh(c[l])
+            res.gs[l][:, t] = torch.cat([i, f, g, o], dim=-1)
+            res.cs[l][:, t] = c[l]
+            res.hs[l][:, t] = h[l]
+            inp = h[l]
+        y = inp @ proj_w + proj_b
+        ys[:, t] = y
+    return ys, res
+
+
+def _bwd_recurrence_reference(params, proj_w, c0, coins, res: Residuals, dys, ctx_dim):
+    """Plain version of the backward recurrence kernel → (dgates per layer
+    (B, T, 4H), dy (B, T, D), dteacher (T, B, D), dy0 (B, D), dh0, dc0
+    (L, B, H), dctx (B, C) or None), all f32."""
+    _no_tf32(dys, "ss_bwd plain version")
+    batch, t_len, d = dys.shape
+    hidden = proj_w.shape[0]
+    layers = len(params)
+    dh = [dys.new_zeros((batch, hidden)) for _ in params]
+    dc = [dys.new_zeros((batch, hidden)) for _ in params]
+    dgates = [dys.new_empty((batch, t_len, 4 * hidden)) for _ in params]
+    dy = dys.new_empty((batch, t_len, d))
+    dteacher = dys.new_empty((t_len, batch, d))
+    dctx = dys.new_zeros((batch, ctx_dim))
+    feedback = dys.new_zeros((batch, d))
+    for t in reversed(range(t_len)):
+        dy_t = dys[:, t] + feedback
+        dy[:, t] = dy_t
+        above = dy_t @ proj_w.t()
+        for l in reversed(range(layers)):
+            d_in = d + ctx_dim if l == 0 else hidden
+            i, f, g, o = res.gs[l][:, t].float().chunk(4, dim=-1)
+            c_t = res.cs[l][:, t].float()
+            c_prev = res.cs[l][:, t - 1].float() if t > 0 else c0[l]
+            dh_total = above + dh[l]
+            tanh_c = torch.tanh(c_t)
+            dc_total = dh_total * o * (1.0 - tanh_c * tanh_c) + dc[l]
+            dg = torch.cat([
+                dc_total * g * i * (1.0 - i),
+                dc_total * c_prev * f * (1.0 - f),
+                dc_total * i * (1.0 - g * g),
+                dh_total * tanh_c * o * (1.0 - o),
+            ], dim=-1)
+            dgates[l][:, t] = dg
+            dz = dg @ params[l].w.t()
+            dh[l] = dz[:, d_in:]
+            dc[l] = dc_total * f
+            above = dz[:, :d_in]
+        dx = above[:, :d]
+        dctx += above[:, d:]
+        coin = coins[t]
+        dteacher[t] = dx * coin
+        feedback = dx * (1.0 - coin)
+    return (dgates, dy, dteacher, feedback, torch.stack(dh), torch.stack(dc),
+            dctx if ctx_dim else None)
+
+
+def _layer0_input(y0, teacher_tm, coins, context, ys):
+    """Layer 0's input ``[x_t, ctx]`` at every (b, t), as the backward
+    rebuilds it: ``x_t`` is the teacher where the coin is up, else the f32
+    ``ys[t - 1]`` (``y0`` at t = 0) → (B, T, D + C)."""
+    y_prev = torch.cat([y0[:, None], ys[:, :-1]], dim=1)
+    x = torch.where(coins.transpose(0, 1) > 0, teacher_tm.transpose(0, 1), y_prev)
+    if context is None:
+        return x
+    return torch.cat([x, context[:, None].expand(-1, x.shape[1], -1)], dim=-1)
+
+
+def _dw_reference(params, h0, y0, teacher_tm, coins, context, ys, res, dgates) -> List[LSTMParams]:
+    """Plain version of the dW/db reduction kernel."""
+    return _lstm_dw_reference(
+        params, _layer0_input(y0, teacher_tm, coins, context, ys), h0, res, dgates
+    )
+
+
+def _dproj_reference(hs_top: torch.Tensor, dy: torch.Tensor):
+    """Plain version of the dproj reduction kernel → (dproj_w (H, D),
+    dproj_b (D,))."""
+    _no_tf32(dy, "ss_dproj plain version")
+    h = hs_top.float().reshape(-1, hs_top.shape[-1])
+    g = dy.reshape(-1, dy.shape[-1])
+    return h.t() @ g, g.sum(dim=0)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def kernel_rows(hidden: int, layers: int, d: int, ctx_dim: int) -> int:
+    """Batch rows per block of the recurrence kernels: ``lstm_train``'s
+    choice (16 rows, 4 x 4 per thread), halved until the larger of the
+    forward's and the backward's shared memory fits (h, c, dh, dc of every
+    layer, the step's dgates, the layer-0 input ``[x, ctx]``, the feedback,
+    ``dctx``). Raises for shapes the kernels do not take."""
+    rows = _lstm_kernel_rows(hidden, layers, d)
+    per_row = max(2 * layers * hidden + 2 * d + ctx_dim,
+                  4 * hidden + 2 * layers * hidden + ctx_dim + 2 * d)
+    while rows >= 4 and 4 * rows * per_row > _SMEM_LIMIT:
+        rows //= 2
+    if rows < 4:
+        raise ValueError(f"layers={layers}, hidden={hidden}, ctx_dim={ctx_dim}: the per-layer "
+                         f"state does not fit one block's shared memory")
+    return rows
+
+
+def _check(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, residual_dtype):
+    if teacher_tm.dim() != 3:
+        raise ValueError(f"teacher_tm must be (T, B, D), got {tuple(teacher_tm.shape)}")
+    t_len, batch, d = teacher_tm.shape
+    layers = len(params)
+    hidden = proj_w.shape[0]
+    ctx_dim = 0 if context is None else context.shape[-1]
+    if layers < 1 or min(t_len, batch, d) < 1:
+        raise ValueError(f"empty call: {layers} layers, teacher {tuple(teacher_tm.shape)}")
+    if residual_dtype not in RESIDUAL_DTYPES:
+        raise TypeError(f"residual_dtype must be one of {RESIDUAL_DTYPES}, got {residual_dtype}")
+    expect = [(proj_w, (hidden, d)), (proj_b, (d,)), (h0, (layers, batch, hidden)),
+              (c0, (layers, batch, hidden)), (y0, (batch, d)), (teacher_tm, (t_len, batch, d)),
+              (coins, (t_len, batch, 1))]
+    if context is not None:
+        expect.append((context, (batch, ctx_dim)))
+    for l, p in enumerate(params):
+        in_l = d + ctx_dim if l == 0 else hidden
+        expect += [(p.w, (in_l + hidden, 4 * hidden)), (p.b, (4 * hidden,))]
+    for t, shape in expect:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the f32 tier takes float32 tensors, got {t.dtype}")
+        if t.device != y0.device:
+            raise ValueError(f"tensors on {t.device} and {y0.device}")
+    if y0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels run on cpu or cuda, not {y0.device}")
+    return ctx_dim
+
+
+def _check_res(res: Residuals, layers, batch, t_len, hidden, device):
+    rdt = res.hs[0].dtype
+    if rdt not in RESIDUAL_DTYPES or not len(res.hs) == len(res.cs) == len(res.gs) == layers:
+        raise ValueError(f"residuals of {len(res.hs)} layers in {rdt} do not match the call")
+    for l in range(layers):
+        for t, w in ((res.hs[l], hidden), (res.cs[l], hidden), (res.gs[l], 4 * hidden)):
+            if tuple(t.shape) != (batch, t_len, w) or t.dtype != rdt or t.device != device:
+                raise ValueError(f"residual {t.dtype} {tuple(t.shape)} on {t.device} does not match the call")
+    return rdt
+
+
+def _expect_f32(expect, params, d_in0: int, hidden: int, dev):
+    """Raise unless every (tensor, shape) of ``expect``, and every layer's W
+    (layer 0 takes ``d_in0`` inputs), is an f32 tensor of that shape on
+    ``dev``."""
+    expect = expect + [(p.w, ((d_in0 if l == 0 else hidden) + hidden, 4 * hidden))
+                       for l, p in enumerate(params)]
+    for t, shape in expect:
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"expected f32 {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _ctx_ok(ctx_dim: int):
+    if ctx_dim % 4:
+        raise ValueError(f"the kernels read the context as 16-byte rows: ctx_dim % 4 == 0, got {ctx_dim}")
+
+
+def _raise_on(err: int, name: str):
+    if err:
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            f"{_library().lstm_ss_error_string(err).decode()} (cuda error {err})"
+        )
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def ss_fwd(
+    params: Sequence[LSTMParams], proj_w, proj_b, h0, c0, y0, teacher_tm, coins,
+    context: Optional[torch.Tensor], residual_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, Residuals]:
+    """Forward recurrence → (ys (B, T, D) f32, the residuals)."""
+    ctx_dim = _check(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, residual_dtype)
+    if y0.device.type == "cpu":
+        return _forward_reference(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins,
+                                  context, residual_dtype)
+    _ctx_ok(ctx_dim)
+    t_len, batch, d = teacher_tm.shape
+    hidden, layers = proj_w.shape[0], len(params)
+    rows = kernel_rows(hidden, layers, d, ctx_dim)
+    dev = y0.device
+
+    def empty(width):
+        return [torch.empty((batch, t_len, width), device=dev, dtype=residual_dtype) for _ in params]
+
+    res = Residuals(empty(hidden), empty(hidden), empty(4 * hidden))
+    ys = torch.empty((batch, t_len, d), device=dev)
+    ws, bs = [p.w for p in params], [p.b for p in params]
+    ctx_t = [] if context is None else [context]
+    _check_card([proj_w, proj_b, h0, c0, y0, teacher_tm, coins, *ctx_t, *ws, *bs,
+                 *res.hs, *res.cs, *res.gs, ys])
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.ss_fwd(
+            h0.data_ptr(), c0.data_ptr(), y0.data_ptr(), teacher_tm.data_ptr(),
+            coins.data_ptr(), None if context is None else context.data_ptr(),
+            _ptrs(ws), _ptrs(bs), proj_w.data_ptr(), proj_b.data_ptr(),
+            _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs), ys.data_ptr(),
+            batch, t_len, d, ctx_dim, hidden, layers, rows,
+            int(residual_dtype == torch.bfloat16), _stream(),
+        )
+    _raise_on(err, "ss_fwd")
+    ss_fwd.launches += 1
+    return ys, res
+
+
+ss_fwd.launches = 0
+
+
+def _transposed(params: Sequence[LSTMParams], d_in0: int, ctx_dim: int):
+    """The weights the backward's ``dgates · Wᵀ`` reads row by row: layer 0
+    ``W[D+C:]ᵀ`` (4H, H), which gives dh; layer l > 0 ``[W[H:]; W[:H]]ᵀ``
+    (4H, 2H), which gives dh and the gradient of the layer's input; and
+    layer 0's ``W[D:D+C]ᵀ`` (4H, C), which gives dctx, or None without a
+    context. (Layer 0's x gradient reads ``W[:D]`` as it is.)"""
+    out = []
+    for l, p in enumerate(params):
+        d_in = d_in0 if l == 0 else p.w.shape[1] // 4
+        w = p.w[d_in:] if l == 0 else torch.cat([p.w[d_in:], p.w[:d_in]])
+        out.append(w.t().contiguous())
+    d = d_in0 - ctx_dim
+    wtc = params[0].w[d:d_in0].t().contiguous() if ctx_dim else None
+    return out, wtc
+
+
+def ss_bwd(
+    params: Sequence[LSTMParams], proj_w, c0, coins, res: Residuals, dys, ctx_dim: int,
+):
+    """Backward recurrence → (dgates per layer (B, T, 4H), dy (B, T, D),
+    dteacher (T, B, D), dy0 (B, D), dh0, dc0 (L, B, H), dctx (B, C) or
+    None), all f32."""
+    batch, t_len, d = dys.shape
+    hidden, layers = proj_w.shape[0], len(params)
+    dev = dys.device
+    expect = [(proj_w, (hidden, d)), (c0, (layers, batch, hidden)), (coins, (t_len, batch, 1)),
+              (dys, (batch, t_len, d))]
+    _expect_f32(expect, params, d + ctx_dim, hidden, dev)
+    rdt = _check_res(res, layers, batch, t_len, hidden, dev)
+    if dev.type == "cpu":
+        return _bwd_recurrence_reference(params, proj_w, c0, coins, res, dys, ctx_dim)
+    _ctx_ok(ctx_dim)
+    rows = kernel_rows(hidden, layers, d, ctx_dim)
+    wt, wtc = _transposed(params, d + ctx_dim, ctx_dim)
+    dgates = [torch.empty((batch, t_len, 4 * hidden), device=dev) for _ in params]
+    dy = torch.empty((batch, t_len, d), device=dev)
+    dteacher = torch.empty((t_len, batch, d), device=dev)
+    dy0 = torch.empty((batch, d), device=dev)
+    dh0 = torch.empty((layers, batch, hidden), device=dev)
+    dc0 = torch.empty((layers, batch, hidden), device=dev)
+    dctx = torch.empty((batch, ctx_dim), device=dev) if ctx_dim else None
+    extra = [] if wtc is None else [wtc, dctx]
+    _check_card([proj_w, c0, coins, dys, params[0].w, *wt, *res.cs, *res.gs, *dgates,
+                 dy, dteacher, dy0, dh0, dc0, *extra])
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.ss_bwd(
+            dys.data_ptr(), c0.data_ptr(), coins.data_ptr(), params[0].w.data_ptr(),
+            _ptrs(wt), None if wtc is None else wtc.data_ptr(), proj_w.data_ptr(),
+            _ptrs(res.cs), _ptrs(res.gs), _ptrs(dgates), dy.data_ptr(), dteacher.data_ptr(),
+            dy0.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            None if dctx is None else dctx.data_ptr(),
+            batch, t_len, d, ctx_dim, hidden, layers, rows, int(rdt == torch.bfloat16), _stream(),
+        )
+    _raise_on(err, "ss_bwd")
+    ss_bwd.launches += 1
+    return dgates, dy, dteacher, dy0, dh0, dc0, dctx
+
+
+ss_bwd.launches = 0
+
+
+def ss_dw(
+    params: Sequence[LSTMParams], h0, y0, teacher_tm, coins, context, ys,
+    res: Residuals, dgates: Sequence[torch.Tensor],
+) -> List[LSTMParams]:
+    """dW/db reduction → per layer ``LSTMParams(dW, db)``, f32."""
+    t_len, batch, d = teacher_tm.shape
+    hidden, layers = h0.shape[-1], len(params)
+    ctx_dim = 0 if context is None else context.shape[-1]
+    dev = y0.device
+    expect = [(h0, (layers, batch, hidden)), (y0, (batch, d)), (teacher_tm, (t_len, batch, d)),
+              (coins, (t_len, batch, 1)), (ys, (batch, t_len, d))]
+    expect += [(g, (batch, t_len, 4 * hidden)) for g in dgates]
+    if context is not None:
+        expect.append((context, (batch, ctx_dim)))
+    _expect_f32(expect, params, d + ctx_dim, hidden, dev)
+    if len(dgates) != layers:
+        raise ValueError(f"{len(dgates)} dgates for {layers} layers")
+    rdt = _check_res(res, layers, batch, t_len, hidden, dev)
+    if dev.type == "cpu":
+        return _dw_reference(params, h0, y0, teacher_tm, coins, context, ys, res, dgates)
+    if batch * t_len >= 2**31:
+        raise ValueError(f"B·T = {batch * t_len} rows do not fit the kernel's 32-bit row index")
+    splits = dw_splits(batch, t_len, hidden, d + ctx_dim, _n_sm(dev))
+    rows_max = max(d + ctx_dim + hidden, 2 * hidden if layers > 1 else 0)  # in_l + H
+    partial = torch.empty((splits, rows_max + 1, 4 * hidden), device=dev)
+    dws = [torch.empty_like(p.w) for p in params]
+    dbs = [torch.empty_like(p.b) for p in params]
+    ctx_t = [] if context is None else [context]
+    _check_card([h0, y0, teacher_tm, coins, ys, *ctx_t, *res.hs, *res.cs, *res.gs, *dgates,
+                 partial, *dws, *dbs])
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.ss_dw(
+            h0.data_ptr(), y0.data_ptr(), teacher_tm.data_ptr(), coins.data_ptr(),
+            None if context is None else context.data_ptr(), ys.data_ptr(),
+            _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs), _ptrs(dgates), partial.data_ptr(),
+            _ptrs(dws), _ptrs(dbs), batch, t_len, d, ctx_dim, hidden, layers, splits,
+            int(rdt == torch.bfloat16), _stream(),
+        )
+    _raise_on(err, "ss_dw")
+    ss_dw.launches += 1
+    return [LSTMParams(w=w, b=b) for w, b in zip(dws, dbs)]
+
+
+ss_dw.launches = 0
+
+
+def ss_dproj(hs_top: torch.Tensor, dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dproj reduction → (dproj_w (H, D), dproj_b (D,)), f32."""
+    batch, t_len, d = dy.shape
+    hidden = hs_top.shape[-1]
+    if dy.dtype != torch.float32 or hs_top.dtype not in RESIDUAL_DTYPES:
+        raise TypeError(f"dy must be f32 and hs_top f32 or bf16, got {dy.dtype}, {hs_top.dtype}")
+    if tuple(hs_top.shape) != (batch, t_len, hidden) or hs_top.device != dy.device:
+        raise ValueError(f"hs_top {tuple(hs_top.shape)} on {hs_top.device} does not match dy "
+                         f"{tuple(dy.shape)} on {dy.device}")
+    if dy.device.type == "cpu":
+        return _dproj_reference(hs_top, dy)
+    if not 1 <= d <= 4 or hidden + 32 > 1024 or batch * t_len >= 2**31:
+        raise ValueError(f"the kernel takes 1 <= D <= 4, H <= 992 and B·T < 2^31, got D={d}, "
+                         f"H={hidden}, B·T={batch * t_len}")
+    dev = dy.device
+    splits = max(1, min(2 * _n_sm(dev), batch * t_len // 64))
+    partial = torch.empty((splits, hidden + 1, d), device=dev)
+    dpw = torch.empty((hidden, d), device=dev)
+    dpb = torch.empty((d,), device=dev)
+    _check_card([hs_top, dy, partial, dpw, dpb])
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.ss_dproj(
+            hs_top.data_ptr(), dy.data_ptr(), partial.data_ptr(), dpw.data_ptr(), dpb.data_ptr(),
+            batch, t_len, d, hidden, splits, int(hs_top.dtype == torch.bfloat16), _stream(),
+        )
+    _raise_on(err, "ss_dproj")
+    ss_dproj.launches += 1
+    return dpw, dpb
+
+
+ss_dproj.launches = 0
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernels' library, built at first use and loaded once."""
+    lib = _build.load("lstm_ss")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    arr = ctypes.POINTER(ctypes.c_void_p)
+    lib.ss_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 8 + [vp]
+    lib.ss_bwd.argtypes = [vp, vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 8 + [vp]
+    lib.ss_dw.argtypes = [vp] * 6 + [arr] * 4 + [vp, arr, arr] + [i32] * 8 + [vp]
+    lib.ss_dproj.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+    for f in (lib.ss_fwd, lib.ss_bwd, lib.ss_dw, lib.ss_dproj):
+        f.restype = i32
+    lib.lstm_ss_error_string.argtypes = [i32]
+    lib.lstm_ss_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# the differentiable function
+# ---------------------------------------------------------------------------
+
+
+class _SSDecode(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, residual_dtype, has_ctx, proj_w, proj_b, h0, c0, y0, teacher_tm, coins,
+                context, *flat):
+        params = [LSTMParams(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
+        context = context if has_ctx else None
+        ys, res = ss_fwd(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context,
+                         residual_dtype)
+        ctx.layers, ctx.has_ctx = len(params), has_ctx
+        saved_ctx = [context] if has_ctx else []
+        ctx.save_for_backward(proj_w, h0, c0, y0, teacher_tm, coins, ys, *saved_ctx, *flat,
+                              *res.hs, *res.cs, *res.gs)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        n = ctx.layers
+        proj_w, h0, c0, y0, teacher_tm, coins, ys, *rest = ctx.saved_tensors
+        context = rest.pop(0) if ctx.has_ctx else None
+        flat, rest = rest[: 2 * n], rest[2 * n:]
+        params = [LSTMParams(flat[i], flat[i + 1]) for i in range(0, 2 * n, 2)]
+        res = Residuals(list(rest[:n]), list(rest[n: 2 * n]), list(rest[2 * n:]))
+        ctx_dim = 0 if context is None else context.shape[-1]
+        dgates, dy, dteacher, dy0, dh0, dc0, dctx = ss_bwd(
+            params, proj_w, c0, coins, res, dys.float().contiguous(), ctx_dim
+        )
+        dparams = ss_dw(params, h0, y0, teacher_tm, coins, context, ys, res, dgates)
+        dpw, dpb = ss_dproj(res.hs[-1], dy)
+        flat_grads = [g for p in dparams for g in (p.w, p.b)]
+        # coins get no gradient; a context that is absent none either
+        return (None, None, dpw, dpb, dh0, dc0, dy0, dteacher, None, dctx, *flat_grads)
+
+
+def ss_decode(
+    dec_params: Sequence[LSTMParams],
+    proj_w: torch.Tensor,
+    proj_b: torch.Tensor,
+    h0: torch.Tensor,
+    c0: torch.Tensor,
+    y0: torch.Tensor,  # (B, D)
+    teacher_tm: torch.Tensor,  # (T, B, D) time-major teacher inputs
+    coins_ctx: tuple,  # (coins (T, B, 1), context (B, C) or None)
+    residual_dtype: torch.dtype = torch.float32,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Scheduled-sampling decoder → (B, T, D) f32 predictions;
+    differentiable in the params, ``proj_w``, ``proj_b``, ``h0``, ``c0``,
+    ``y0``, ``teacher_tm`` and the context through the kernels' backward
+    (coins get no gradient).
+
+    Only f32 compute is ported: ``compute_dtype=torch.bfloat16`` raises."""
+    if compute_dtype != torch.float32:
+        raise NotImplementedError(
+            f"ss_decode: only f32 compute is ported, got compute_dtype={compute_dtype} "
+            f"(ROADMAP.md Queue 2, the bf16-compute tier of ss_decode)"
+        )
+    coins, context = coins_ctx
+    _check(dec_params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, residual_dtype)
+    flat = [t for p in dec_params for t in (p.w, p.b)]
+    has_ctx = context is not None
+    # autograd needs a tensor in every slot; an absent context rides as an
+    # empty tensor and gets no gradient
+    ctx_arg = context if has_ctx else y0.new_empty((0,))
+    return _SSDecode.apply(residual_dtype, has_ctx, proj_w, proj_b, h0, c0, y0,
+                           teacher_tm.contiguous(), coins.contiguous(), ctx_arg, *flat)

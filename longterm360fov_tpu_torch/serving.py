@@ -9,15 +9,18 @@ PyTorch twin of the serve-path subset of ``longterm360fov_tpu.serving``:
   through the fused CUDA serve kernel (``impl="fused"``) or the plain
   PyTorch path (``impl="plain"``).
 - :class:`DynamicBatcher` — coalesces concurrent requests into ONE device
-  dispatch (copied from the JAX package; only the readback differs).
-  Padding rows are copies of a real request row and are sliced off before
-  results are returned, so co-batching never changes any viewer's answer.
+  dispatch (copied from the JAX package; only the readback differs), with
+  the per-request extras of the family's schema (:func:`extra_specs_for`,
+  :func:`required_extras_for`): the cross_user peer futures and their mask,
+  zero-filled when a request has none. Padding rows are copies of a real
+  request row and are sliced off before results are returned, so
+  co-batching never changes any viewer's answer.
 - :func:`load_exported_params` — loads the flat dotted-key ``export`` npz
-  of the JAX package into the port's params.
+  of the JAX package into the port's params (seq2seq and cross_user trees).
 
-The TCP daemon, per-viewer pose windows, hot-reload ops, grouped
-serving, the batcher's request extras for context and peer families and
-its mesh bucket divisor are not ported yet (ROADMAP.md).
+Not ported yet (ROADMAP.md): the TCP daemon, per-viewer pose windows,
+hot-reload ops, grouped serving (slice 'the TCP daemon and CLI'), and the
+batcher's mesh bucket divisor (slice 'parallelism').
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +40,8 @@ __all__ = [
     "DynamicBatcher",
     "ParamStore",
     "make_serve_fn",
+    "extra_specs_for",
+    "required_extras_for",
     "flat_param_items",
     "load_exported_params",
 ]
@@ -73,7 +78,8 @@ def make_serve_fn(
     impl: str = "fused",
     param_store: Optional[ParamStore] = None,
 ) -> Callable:
-    """One serve program: batch dict of host arrays → ONE packed
+    """One serve program: batch dict of host arrays ("past" and the
+    family's extras, see :func:`extra_specs_for`) → ONE packed
     ``(B, 2*H_out[+M])`` f32 tensor on ``device``, where the params must be:
     yaw, pitch and, with ``with_tiles``, the prefetch mask as 0/1. One
     output buffer means one device→host copy. The returned callable's
@@ -117,6 +123,35 @@ def make_serve_fn(
 
     fn.unpack = unpack
     return fn
+
+
+# the family's feature width (longterm360fov_tpu.models.fusion.FEATURE_DIM)
+FUSION_FEATURE_DIM = 128
+
+
+def extra_specs_for(cfg) -> Dict[str, Tuple[int, ...]]:
+    """Per-request extra-array schema for the preset's model family, as the
+    JAX ``serving.extra_specs_for`` gives it. Mask-gated extras (peer
+    futures) may be omitted: zero-fill and a zero validity mask is exactly
+    the no-context model. Extras with no validity mask (fusion's
+    ``features``) are required in every request; see
+    :func:`required_extras_for`."""
+    fam = cfg.model_family
+    if fam in ("cross_user", "transformer") and cfg.n_other_users > 0:
+        k, t = cfg.n_other_users, cfg.model.h_out
+        return {"other_future": (k, t, 3), "other_mask": (k,)}
+    if fam == "fusion":
+        return {"features": (FUSION_FEATURE_DIM,)}
+    return {}
+
+
+def required_extras_for(cfg) -> frozenset:
+    """Extras every request must carry: those without a validity mask.
+    Zero-filled fusion features are not the no-context model, so omitting
+    them is an error, never a silent zero-fill."""
+    return frozenset(
+        name for name in extra_specs_for(cfg) if name not in ("other_future", "other_mask")
+    )
 
 
 def _walk(tree, fn, prefix=""):
@@ -229,6 +264,8 @@ class DynamicBatcher:
         serve_fn: Callable,
         *,
         h_in: int,
+        extra_specs: Optional[Dict[str, Tuple[int, ...]]] = None,
+        required: frozenset = frozenset(),
         max_batch: int = 256,
         max_wait_ms: float = 2.0,
         max_queue: Optional[int] = None,
@@ -238,6 +275,8 @@ class DynamicBatcher:
             raise ValueError("max_batch must be >= 1")
         self._serve = serve_fn
         self.h_in = int(h_in)
+        self.extra_specs = dict(extra_specs or {})
+        self.required = frozenset(required)
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
         # admission control: a bounded queue turns overload into an
@@ -284,24 +323,70 @@ class DynamicBatcher:
 
     # -- client side --------------------------------------------------
 
-    def submit(self, past: np.ndarray) -> _Pending:
-        """Queue one request. ``past`` is (h_in, 3) xyz."""
+    def _extras(self, arrays, extras, lead: Tuple[int, ...]):
+        """Fill ``arrays`` with the extras of ``extra_specs``, each with the
+        leading shape ``lead`` (() for one request, (n,) for a bulk one):
+        missing → zeros; fewer peers than the preset's K → zero rows; the
+        default mask, only when the caller gave none, is "valid where a peer
+        row is nonzero" (an explicit all-zero mask means "present but
+        disabled" and is kept)."""
+        supplied = {k for k, v in extras.items() if v is not None}
+        missing_req = self.required - supplied
+        if missing_req:
+            raise ValueError(
+                f"this daemon's model family requires extras "
+                f"{sorted(missing_req)} in every request (they have no "
+                f"validity mask, so zero-fill would be wrong, not 'absent')"
+            )
+        for name, shape in self.extra_specs.items():
+            given = extras.pop(name, None)
+            if given is None:
+                arrays[name] = np.zeros(lead + shape, np.float32)
+                continue
+            given = np.asarray(given, np.float32)
+            peers = len(lead)  # the K axis of other_future
+            if name == "other_future" and given.ndim == len(lead) + 3 and (
+                given.shape[peers] < shape[0]
+            ):  # fewer peers than the preset's K → pad; the mask gates them
+                pad = np.zeros(lead + (shape[0] - given.shape[peers],) + shape[1:], np.float32)
+                given = np.concatenate([given, pad], axis=peers)
+            if given.shape != lead + shape:
+                raise ValueError(
+                    f"extra {name!r} must have shape {lead + shape}, got {given.shape}"
+                )
+            arrays[name] = given
+        if extras:
+            raise ValueError(f"unknown extras: {sorted(extras)}")
+        if ("other_mask" in self.extra_specs and "other_mask" not in supplied
+                and "other_future" in supplied):
+            axes = tuple(range(len(lead) + 1, len(lead) + 3))
+            arrays["other_mask"] = (
+                np.abs(arrays["other_future"]).max(axis=axes) > 0
+            ).astype(np.float32)
+        return arrays
+
+    def submit(self, past: np.ndarray, **extras) -> _Pending:
+        """Queue one request. ``past`` is (h_in, 3) xyz; extras follow
+        ``extra_specs`` (missing → zeros, and the mask, when the schema has
+        one, stays zero so the model sees "no context")."""
         past = np.asarray(past, np.float32)
         if past.shape != (self.h_in, 3):
             raise ValueError(
                 f"past must be ({self.h_in}, 3) xyz, got {past.shape}"
             )
-        p = _Pending({"past": past[None]})
+        arrays = self._extras({"past": past}, extras, ())
+        p = _Pending({k: v[None] for k, v in arrays.items()})
         self._enqueue(p)
         return p
 
-    def submit_many(self, pasts: np.ndarray) -> list:
+    def submit_many(self, pasts: np.ndarray, **extras) -> list:
         """Queue N windows as bulk entries (the gateway `predict_batch`
         path): ONE waiter per ≤``max_batch`` chunk instead of one per
         window, so a 4096-window request costs a handful of queue and
         dispatch operations rather than 4096 Python round trips through
-        the coalescing loop. Returns the list of pending chunks in row
-        order; each result holds the ``(chunk_rows, ...)`` output slice."""
+        the coalescing loop. Extras follow ``extra_specs`` with a leading N
+        axis. Returns the list of pending chunks in row order; each result
+        holds the ``(chunk_rows, ...)`` output slice."""
         pasts = np.ascontiguousarray(np.asarray(pasts, np.float32))
         if pasts.ndim != 3 or pasts.shape[1:] != (self.h_in, 3):
             raise ValueError(
@@ -310,10 +395,11 @@ class DynamicBatcher:
         n = pasts.shape[0]
         if n == 0:
             raise ValueError("empty bulk request")
+        arrays = self._extras({"past": pasts}, extras, (n,))
         pendings = []
         for ofs in range(0, n, self.max_batch):
-            chunk = pasts[ofs:ofs + self.max_batch]
-            p = _Pending({"past": chunk}, n=chunk.shape[0])
+            chunk = {k: v[ofs:ofs + self.max_batch] for k, v in arrays.items()}
+            p = _Pending(chunk, n=chunk["past"].shape[0])
             self._enqueue(p)
             pendings.append(p)
         return pendings
@@ -340,9 +426,9 @@ class DynamicBatcher:
                 f"(retry with backoff)"
             ) from None
 
-    def predict(self, past: np.ndarray, timeout: float = 30.0):
+    def predict(self, past: np.ndarray, timeout: float = 30.0, **extras):
         """submit + wait: → dict of per-request numpy arrays."""
-        p = self.submit(past)
+        p = self.submit(past, **extras)
         if not p.event.wait(timeout):
             raise TimeoutError("prediction timed out")
         if p.error is not None:

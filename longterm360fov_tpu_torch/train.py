@@ -7,14 +7,20 @@ warmup-cosine schedule, written out here with optax's formulas and
 defaults. The step runs where the params are; batches are moved there.
 
 ``cfg.train_impl`` keeps the JAX values (they are part of
-``ExperimentConfig.hash``): ``"xla"`` is plain PyTorch autograd through
-``seq2seq.apply`` in teacher-forcing mode; ``"auto"`` and ``"fused"`` run
-``fused_tf_fn`` (``seq2seq.apply_fused_tf``), whose kernels run where their
+``ExperimentConfig.hash``): ``"xla"`` is plain PyTorch autograd through the
+family's ``apply``; ``"auto"`` and ``"fused"`` run ``fused_tf_fn`` (the
+family's ``apply_fused_tf``) or, with ``scheduled_sampling``,
+``fused_ss_fn`` (its ``apply_fused_ss``), whose kernels run where their
 tensors are: CUDA kernels on the card, their plain versions on the CPU.
 Nothing is routed on ``torch.cuda.is_available()``.
 
-Not ported yet, and raising: ``scheduled_sampling`` and ``data_parallel``
-(ROADMAP.md, slices 'scheduled sampling' and 'parallelism').
+Scheduled sampling draws the coins of step i on the params' device from a
+generator seeded from ``(cfg.seed, i)`` (:func:`step_generator`), as
+:func:`batch_iterator` seeds its epochs, so a resumed run draws the same
+coins with no saved generator state.
+
+Not ported yet, and raising: ``data_parallel`` (ROADMAP.md, slice
+'parallelism').
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ __all__ = [
     "learning_rate",
     "make_optimizer",
     "teacher_prob_at",
+    "default_extras",
+    "step_generator",
     "make_grad_fn",
     "make_train_step",
     "init_state",
@@ -132,12 +140,23 @@ def teacher_prob_at(cfg: ExperimentConfig, step: int) -> float:
     return cfg.ss_start + (cfg.ss_end - cfg.ss_start) * frac
 
 
+def default_extras(batch: Dict, anchor) -> Dict:
+    """Model-family batch hook: extra ``apply`` keyword arguments from the
+    raw batch and the normalization anchor. Families override it with their
+    ``batch_extras`` (cross_user re-anchors the peer futures)."""
+    if batch.get("context") is not None:
+        return {"context": batch["context"]}
+    return {}
+
+
+def step_generator(cfg: ExperimentConfig, step: int, device) -> torch.Generator:
+    """The generator that draws step ``step``'s scheduled-sampling coins, on
+    ``device``, seeded from ``(cfg.seed, step)``."""
+    seed = int(np.random.default_rng([cfg.seed, step]).integers(2**63))
+    return torch.Generator(device=torch.device(device)).manual_seed(seed)
+
+
 def _check_ported(cfg: ExperimentConfig):
-    if cfg.scheduled_sampling:
-        raise NotImplementedError(
-            f"{cfg.name}: scheduled-sampling training is not ported yet "
-            f"(ROADMAP.md, slice 'scheduled sampling')"
-        )
     if cfg.data_parallel:
         raise NotImplementedError(
             f"{cfg.name}: data-parallel training is not ported yet "
@@ -151,28 +170,43 @@ def make_grad_fn(
     cfg: ExperimentConfig,
     apply_fn: Callable,
     *,
+    extras_fn: Optional[Callable] = None,
     fused_tf_fn: Optional[Callable] = None,
+    fused_ss_fn: Optional[Callable] = None,
     gc_metric: bool = True,
 ) -> Callable:
-    """``grad_fn(params, batch) -> ((loss, gc_deg), grads)``: the mean loss
-    of the batch and its gradient (a params tree), over ``cfg.accum`` equal
-    microbatches when ``accum`` > 1. ``batch`` = {"past": (B, H_in, D) raw,
-    "future": (B, H_out, D) raw}, arrays or tensors, moved to the params'
-    device. ``gc_metric=False`` skips the great-circle metric (reported as
-    NaN) unless the loss needs it."""
+    """``grad_fn(params, batch, gen=None, teacher_prob=1.0) -> ((loss,
+    gc_deg), grads)``: the mean loss of the batch and its gradient (a params
+    tree), over ``cfg.accum`` equal microbatches when ``accum`` > 1.
+    ``batch`` = {"past": (B, H_in, D) raw, "future": (B, H_out, D) raw, and
+    the family's extras}, arrays or tensors, moved to the params' device;
+    ``extras_fn(batch, anchor)`` (default :func:`default_extras`) turns the
+    extras into keyword arguments of the forward. With scheduled sampling,
+    ``gen`` draws the coins (microbatch after microbatch) at
+    ``teacher_prob``. ``gc_metric=False`` skips the great-circle metric
+    (reported as NaN) unless the loss needs it."""
     _check_ported(cfg)
-    use_fused = fused_tf_fn is not None and cfg.train_impl in ("auto", "fused")
+    extras = extras_fn or default_extras
+    impl_on = cfg.train_impl in ("auto", "fused")
+    use_fused = fused_tf_fn is not None and not cfg.scheduled_sampling and impl_on
+    use_fused_ss = fused_ss_fn is not None and cfg.scheduled_sampling and impl_on
     fused_kw = (
         {} if cfg.train_compute == "float32"
         else {"compute_dtype": getattr(torch, cfg.train_compute)}
     )
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, gen, teacher_prob):
         past_n, future_n, anchor = windows.normalize_window(batch["past"], batch["future"])
+        kwargs = extras(batch, anchor)
         if use_fused:
-            pred_n = fused_tf_fn(params, cfg.model, past_n, future_n, **fused_kw)
+            pred_n = fused_tf_fn(params, cfg.model, past_n, future_n, **fused_kw, **kwargs)
+        elif use_fused_ss:
+            pred_n = fused_ss_fn(params, cfg.model, past_n, future_n, rng=gen,
+                                 teacher_prob=teacher_prob, **fused_kw, **kwargs)
         else:
-            pred_n = apply_fn(params, cfg.model, past_n, future_n)
+            pred_n = apply_fn(params, cfg.model, past_n, future_n,
+                              rng=gen if cfg.scheduled_sampling else None,
+                              teacher_prob=teacher_prob, **kwargs)
         true_xyz = batch["future"]
         pred_xyz = None
         if gc_metric or cfg.gc_weight:
@@ -185,19 +219,21 @@ def make_grad_fn(
             )
         return loss, gc_deg
 
-    def one(params, batch):
+    def one(params, batch, gen, teacher_prob):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        loss, gc_deg = loss_fn(tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        loss, gc_deg = loss_fn(tree_unflatten(params, leaves), batch, gen, teacher_prob)
+        # a leaf the loss does not reach (the peer encoder under an explicit
+        # context) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         return (loss.detach(), gc_deg), list(grads)
 
-    def grad_fn(params, batch):
+    def grad_fn(params, batch, gen=None, teacher_prob=1.0):
         device = params["proj"]["w"].device
         batch = {
             k: torch.as_tensor(v, device=device) for k, v in batch.items() if v is not None
         }
         if cfg.accum == 1:
-            (loss, gc_deg), grads = one(params, batch)
+            (loss, gc_deg), grads = one(params, batch, gen, teacher_prob)
             return (loss, gc_deg), tree_unflatten(params, grads)
         b = batch["past"].shape[0]
         if b % cfg.accum:
@@ -207,7 +243,7 @@ def make_grad_fn(
         lsum = gcsum = 0.0
         for i in range(cfg.accum):
             micro = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            (l, g), grads = one(params, micro)
+            (l, g), grads = one(params, micro, gen, teacher_prob)
             gsum = [s + x for s, x in zip(gsum, grads)]
             lsum, gcsum = lsum + l, gcsum + g
         inv = 1.0 / cfg.accum
@@ -222,28 +258,33 @@ def make_train_step(
     apply_fn: Callable,
     optimizer: Optimizer,
     *,
+    extras_fn: Optional[Callable] = None,
     fused_tf_fn: Optional[Callable] = None,
+    fused_ss_fn: Optional[Callable] = None,
     gc_metric: bool = True,
 ) -> Callable:
     """``step(state, batch) -> (state, metrics)``: one optimizer update from
-    :func:`make_grad_fn`'s gradient. ``metrics`` holds 0-d tensors (read
-    them only where the host needs them: each read waits for the device).
-    ``gc_metric=False`` builds the fast step the loop runs between logged
-    steps; its parameter updates are the same."""
-    grad_fn = make_grad_fn(cfg, apply_fn, fused_tf_fn=fused_tf_fn, gc_metric=gc_metric)
+    :func:`make_grad_fn`'s gradient, with scheduled sampling at
+    :func:`teacher_prob_at` and coins from :func:`step_generator`.
+    ``metrics`` holds 0-d tensors (read them only where the host needs
+    them: each read waits for the device). ``gc_metric=False`` builds the
+    fast step the loop runs between logged steps; its parameter updates are
+    the same."""
+    grad_fn = make_grad_fn(cfg, apply_fn, extras_fn=extras_fn, fused_tf_fn=fused_tf_fn,
+                           fused_ss_fn=fused_ss_fn, gc_metric=gc_metric)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        (loss, gc_deg), grads = grad_fn(state.params, batch)
+        tp = teacher_prob_at(cfg, state.step)
+        gen = (step_generator(cfg, state.step, state.params["proj"]["w"].device)
+               if cfg.scheduled_sampling else None)
+        (loss, gc_deg), grads = grad_fn(state.params, batch, gen, tp)
         updates, opt_state = optimizer.update(grads, state.opt_state)
         with torch.no_grad():
             params = tree_unflatten(state.params, [
                 (p + u).to(p.dtype)
                 for p, u in zip(tree_leaves(state.params), tree_leaves(updates))
             ])
-        metrics = {
-            "loss": loss, "great_circle_deg": gc_deg,
-            "teacher_prob": teacher_prob_at(cfg, state.step),
-        }
+        metrics = {"loss": loss, "great_circle_deg": gc_deg, "teacher_prob": tp}
         return TrainState(params, opt_state, state.step + 1, state.rng), metrics
 
     return step
@@ -301,19 +342,23 @@ def train_loop(
     log_file: Optional[str] = None,
     checkpoint_dir: Optional[str] = None,
     state: Optional[TrainState] = None,
+    extras_fn: Optional[Callable] = None,
     fused_tf_fn: Optional[Callable] = None,
+    fused_ss_fn: Optional[Callable] = None,
 ) -> Tuple[TrainState, list]:
     """Single-device training loop → (final state, metrics history).
 
     Runs the fast step between logged steps and the full step (with the
     great-circle metric) on every ``eval_every``-th and the last step; a
     logged step also evaluates ``eval_data`` through ``evaluate.evaluate``
-    with ``impl="fused"`` (the ``fused_serve`` kernel on the card) and appends a JSON line to ``log_file``. Checkpoints
-    every ``ckpt_every`` steps and at the end. Resumable: pass a restored
-    ``state`` to continue from its step."""
+    with ``impl="fused"`` (the family's ``serve_fused``: its serving
+    kernels on the card) and appends a JSON line to ``log_file``.
+    Checkpoints every ``ckpt_every`` steps and at the end. Resumable: pass
+    a restored ``state`` to continue from its step."""
     optimizer = make_optimizer(cfg)
-    step_fn = make_train_step(cfg, apply_fn, optimizer, fused_tf_fn=fused_tf_fn)
-    step_fast = make_train_step(cfg, apply_fn, optimizer, gc_metric=False, fused_tf_fn=fused_tf_fn)
+    fns = dict(extras_fn=extras_fn, fused_tf_fn=fused_tf_fn, fused_ss_fn=fused_ss_fn)
+    step_fn = make_train_step(cfg, apply_fn, optimizer, **fns)
+    step_fast = make_train_step(cfg, apply_fn, optimizer, gc_metric=False, **fns)
     if state is None:
         state = init_state(cfg, init_fn, optimizer, device=device)
     it = batch_iterator(data, cfg.batch_size, cfg.seed, start_step=state.step)

@@ -22,9 +22,11 @@ loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "
 print(len(names), loaded, ",".join(names))
 """
 
-# the training slice's modules, beside the serving slice's
+# the training slice's modules, beside the serving slice's, and the
+# cross_user and scheduled-sampling slice's
 _TRAIN_SLICE = ("baselines", "checkpoint", "data", "evaluate", "losses",
                 "ops.lstm_train", "traces", "train")
+_CROSS_USER_SLICE = ("models.cross_user", "ops.lstm_ss")
 
 
 def test_port_imports_without_jax():
@@ -38,5 +40,5 @@ def test_port_imports_without_jax():
     assert int(count) >= 22, proc.stdout  # every module of the package
     assert loaded.strip() == "[]"
     names = names.strip().split(",")
-    for mod in _TRAIN_SLICE:
+    for mod in _TRAIN_SLICE + _CROSS_USER_SLICE:
         assert f"longterm360fov_tpu_torch.{mod}" in names

@@ -14,7 +14,7 @@ import torch
 from longterm360fov_tpu_torch import oracle
 from longterm360fov_tpu_torch.models import seq2seq
 from longterm360fov_tpu_torch.models.cell import LSTMParams
-from longterm360fov_tpu_torch.ops import fused_lstm, lstm_train
+from longterm360fov_tpu_torch.ops import fused_lstm, lstm_ss, lstm_train
 from longterm360fov_tpu_torch.params import params_from_numpy
 
 # the condition string is evaluated when the test runs, not at import
@@ -178,3 +178,205 @@ def test_lstm_train_never_falls_back_on_card():
     ps, (xs, h0, c0), _ = _lstm_case(4, 1, seed=0, h=48)
     with pytest.raises(ValueError, match="hidden % 32"):
         lstm_train.lstm_fwd(ps, xs, h0, c0)
+
+
+# ------------------------------------- fused_serve (static context) and fused_encode
+# Same bound as the no-context tier: 1e-4 on normalized outputs after the
+# whole horizon (exact f32 FMAs in another order than cuBLAS).
+
+
+def _stack(rng, in0, layers, hidden=128):
+    ps = []
+    for l in range(layers):
+        fan = (in0 if l == 0 else hidden) + hidden
+        lim = np.sqrt(6 / (fan + 4 * hidden))
+        ps.append(LSTMParams(
+            torch.tensor(rng.uniform(-lim, lim, size=(fan, 4 * hidden)).astype(np.float32), device="cuda"),
+            torch.tensor(rng.normal(size=4 * hidden).astype(np.float32) * 0.1, device="cuda")))
+    return ps
+
+
+def _cuda(rng, shape, scale=1.0):
+    return torch.tensor(rng.normal(size=shape).astype(np.float32) * scale, device="cuda")
+
+
+@pytest.mark.parametrize("ctx_dim", [0, 128])
+@pytest.mark.parametrize("layers", [1, 2, 3])
+@pytest.mark.parametrize("batch", [1, 257, 4099])
+def test_fused_serve_context_tier_matches_plain(batch, layers, ctx_dim):
+    rng = np.random.default_rng(layers)
+    enc, dec = _stack(rng, 3, layers), _stack(rng, 3 + ctx_dim, layers)
+    pw, pb = _cuda(rng, (128, 3), 0.1), _cuda(rng, (3,), 0.1)
+    x = _cuda(rng, (batch, 30, 3), 0.1)
+    ctx = _cuda(rng, (batch, ctx_dim)) if ctx_dim else None
+    before = fused_lstm.fused_serve.launches
+    out = fused_lstm.fused_serve(enc, dec, pw, pb, x, 30, context=ctx)
+    torch.cuda.synchronize()
+    assert fused_lstm.fused_serve.launches == before + 1
+    ref = fused_lstm.fused_serve_reference(enc, dec, pw, pb, x, 30, ctx)
+    assert out.shape == (batch, 30, 3) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("layers", [1, 2, 3])
+@pytest.mark.parametrize("batch", [1, 257, 16387])
+def test_fused_encode_matches_plain(batch, layers):
+    rng = np.random.default_rng(layers)
+    ps = _stack(rng, 3, layers)
+    xs = _cuda(rng, (batch, 30, 3), 0.3)
+    before = fused_lstm.fused_encode.launches
+    out = fused_lstm.fused_encode(ps, xs)
+    torch.cuda.synchronize()
+    assert fused_lstm.fused_encode.launches == before + 1
+    assert out.shape == (batch, 128) and torch.isfinite(out).all()
+    assert (out - fused_lstm.fused_encode_reference(ps, xs)).abs().max().item() <= 1e-5
+
+
+def test_serve_and_encode_rows_are_independent():
+    rng = np.random.default_rng(4)
+    enc, dec = _stack(rng, 3, 2), _stack(rng, 3 + 128, 2)
+    pw, pb = _cuda(rng, (128, 3), 0.1), _cuda(rng, (3,), 0.1)
+    x, ctx = _cuda(rng, (300, 30, 3), 0.1), _cuda(rng, (300, 128))
+    part = slice(70, 131)
+    full = fused_lstm.fused_serve(enc, dec, pw, pb, x, 30, context=ctx)
+    cut = fused_lstm.fused_serve(enc, dec, pw, pb, x[part].contiguous(), 30, context=ctx[part].contiguous())
+    assert torch.equal(full[part], cut)
+    assert torch.equal(fused_lstm.fused_encode(enc, x)[part], fused_lstm.fused_encode(enc, x[part].contiguous()))
+
+
+def test_serve_context_and_encode_never_fall_back_on_card():
+    rng = np.random.default_rng(0)
+    enc, dec = _stack(rng, 3, 1), _stack(rng, 3 + 6, 1)
+    pw, pb = _cuda(rng, (128, 3)), _cuda(rng, (3,))
+    with pytest.raises(ValueError, match="ctx_dim % 4"):
+        fused_lstm.fused_serve(enc, dec, pw, pb, _cuda(rng, (4, 5, 3)), 3, context=_cuda(rng, (4, 6)))
+    with pytest.raises(ValueError, match="hidden % 32"):
+        fused_lstm.fused_encode(_stack(rng, 3, 1, hidden=48), _cuda(rng, (4, 5, 3)))
+
+
+# ------------------------------------------------------------- ss_decode kernels
+# Forward: ys within 1e-5 absolute (the feedback is f32 on both sides); the
+# residuals as for lstm_seq_states (1e-5, or one bf16 step). Backward, fed
+# the same residuals: 1e-4 of max|plain| per output (every reduction sums
+# B·T terms in another order).
+
+
+def _ss_case(batch, layers, ctx_dim, coins, seed, t=30):
+    rng = np.random.default_rng(seed)
+    ps = _stack(rng, 3 + ctx_dim, layers)
+    if coins == "bernoulli":
+        c = torch.tensor((rng.random((t, batch, 1)) < 0.5).astype(np.float32), device="cuda")
+    else:
+        c = torch.full((t, batch, 1), float(coins), device="cuda")
+    return ps, dict(
+        proj_w=_cuda(rng, (128, 3), 0.1), proj_b=_cuda(rng, (3,), 0.1),
+        h0=_cuda(rng, (layers, batch, 128), 0.3), c0=_cuda(rng, (layers, batch, 128), 0.3),
+        y0=_cuda(rng, (batch, 3), 0.1), teacher=_cuda(rng, (t, batch, 3), 0.1), coins=c,
+        ctx=_cuda(rng, (batch, ctx_dim)) if ctx_dim else None, dys=_cuda(rng, (batch, t, 3)),
+    )
+
+
+def _ss_fwd_args(ps, a):
+    return (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], a["ctx"])
+
+
+@pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layers,ctx_dim", [(1, 0), (2, 128), (3, 128)])
+@pytest.mark.parametrize("batch", [1, 257, 4099])
+def test_ss_kernels_match_plain(batch, layers, ctx_dim, rd):
+    ps, a = _ss_case(batch, layers, ctx_dim, "bernoulli", seed=layers)
+    counts = lambda: tuple(f.launches for f in (lstm_ss.ss_fwd, lstm_ss.ss_bwd, lstm_ss.ss_dw, lstm_ss.ss_dproj))  # noqa: E731
+    before = counts()
+    ys, res = lstm_ss.ss_fwd(*_ss_fwd_args(ps, a), rd)
+    ys_p, res_p = lstm_ss._forward_reference(*_ss_fwd_args(ps, a), rd)
+    torch.cuda.synchronize()
+    assert (ys - ys_p).abs().max().item() <= 1e-5
+    for x, y in zip(res.hs + res.cs + res.gs, res_p.hs + res_p.cs + res_p.gs):
+        assert x.dtype == rd and x.shape == y.shape
+        tol = 1e-5 if rd == torch.float32 else 1e-5 + 2.0 ** -7 * y.float().abs()
+        assert ((x.float() - y.float()).abs() <= tol).all()
+    bw = lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], ctx_dim)
+    bw_p = lstm_ss._bwd_recurrence_reference(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], ctx_dim)
+    dps = lstm_ss.ss_dw(ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["ctx"], ys, res, bw_p[0])
+    dps_p = lstm_ss._dw_reference(ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["ctx"], ys, res, bw_p[0])
+    dproj = lstm_ss.ss_dproj(res.hs[-1], bw_p[1])
+    dproj_p = lstm_ss._dproj_reference(res.hs[-1], bw_p[1])
+    torch.cuda.synchronize()
+    pairs = list(zip(bw[0], bw_p[0])) + [(x, y) for x, y in zip(bw[1:], bw_p[1:]) if y is not None]
+    pairs += [(x.w, y.w) for x, y in zip(dps, dps_p)] + [(x.b, y.b) for x, y in zip(dps, dps_p)]
+    pairs += list(zip(dproj, dproj_p))
+    for x, y in pairs:
+        assert torch.isfinite(x).all() and _rel(x, y) <= 1e-4
+    assert (bw[6] is None) == (ctx_dim == 0)
+    assert counts() == tuple(n + 1 for n in before)
+
+
+@pytest.mark.parametrize("coins", ["1", "0"])
+def test_ss_kernels_match_plain_at_coin_extremes(coins):
+    ps, a = _ss_case(4096, 2, 128, coins, seed=5)
+    ys, res = lstm_ss.ss_fwd(*_ss_fwd_args(ps, a), torch.float32)
+    ys_p, _ = lstm_ss._forward_reference(*_ss_fwd_args(ps, a), torch.float32)
+    bw = lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
+    bw_p = lstm_ss._bwd_recurrence_reference(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
+    torch.cuda.synchronize()
+    assert (ys - ys_p).abs().max().item() <= 1e-5
+    for x, y in list(zip(bw[0], bw_p[0])) + list(zip(bw[1:], bw_p[1:])):
+        assert _rel(x, y) <= 1e-4 if y.abs().max() > 0 else not x.any()
+
+
+def test_ss_backward_is_deterministic():
+    """No float atomics: the backward recurrence and both reductions give
+    the same bits twice."""
+    ps, a = _ss_case(4099, 2, 128, "bernoulli", seed=6)
+    leaves = [t.clone().requires_grad_(True) for p in ps for t in p]
+    ins = [a[k].clone().requires_grad_(True) for k in ("proj_w", "proj_b", "h0", "c0", "y0", "teacher", "ctx")]
+    grads = []
+    for _ in range(2):
+        params = [LSTMParams(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
+        out = lstm_ss.ss_decode(params, *ins[:6], (a["coins"], ins[6]), torch.bfloat16)
+        grads.append(torch.autograd.grad((out * a["dys"]).sum(), leaves + ins))
+    for x, y in zip(*grads):
+        assert torch.equal(x, y)
+
+
+def test_ss_decode_autograd_matches_the_step_loop():
+    ps, a = _ss_case(513, 2, 128, "bernoulli", seed=7)
+    grads = {}
+    for name, fn in (("kernels", lstm_ss.ss_decode), ("loop", lstm_ss.ss_decode_reference)):
+        leaves = [t.clone().requires_grad_(True) for p in ps for t in p]
+        ins = [a[k].clone().requires_grad_(True) for k in ("proj_w", "proj_b", "h0", "c0", "y0", "teacher", "ctx")]
+        params = [LSTMParams(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
+        out = fn(params, *ins[:6], (a["coins"], ins[6]))
+        grads[name] = (out, torch.autograd.grad((out * a["dys"]).sum(), leaves + ins))
+    assert (grads["kernels"][0] - grads["loop"][0]).abs().max().item() <= 1e-5
+    for x, y in zip(grads["kernels"][1], grads["loop"][1]):
+        assert _rel(x, y) <= 1e-4
+
+
+def test_ss_rows_are_independent():
+    ps, a = _ss_case(300, 2, 128, "bernoulli", seed=8)
+    part = slice(70, 131)
+    sub = {k: (v[:, part] if k in ("h0", "c0", "teacher", "coins") else v[part] if k in ("y0", "ctx", "dys") else v)
+           for k, v in a.items()}
+    # fresh copies: a row slice of a (B, 3) tensor is not 16-byte aligned
+    sub = {k: v.contiguous().clone() for k, v in sub.items()}
+    ys, res = lstm_ss.ss_fwd(*_ss_fwd_args(ps, a), torch.bfloat16)
+    ys_s, res_s = lstm_ss.ss_fwd(*_ss_fwd_args(ps, sub), torch.bfloat16)
+    assert torch.equal(ys[part], ys_s)
+    for x, y in zip(res.hs + res.cs + res.gs, res_s.hs + res_s.cs + res_s.gs):
+        assert torch.equal(x[part], y)
+    full = lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
+    cut = lstm_ss.ss_bwd(ps, sub["proj_w"], sub["c0"], sub["coins"], res_s, sub["dys"], 128)
+    for x, y in zip(full[0], cut[0]):
+        assert torch.equal(x[part], y)
+    assert torch.equal(full[1][part], cut[1]) and torch.equal(full[2][:, part], cut[2])
+    assert torch.equal(full[3][part], cut[3]) and torch.equal(full[6][part], cut[6])
+    assert torch.equal(full[4][:, part], cut[4]) and torch.equal(full[5][:, part], cut[5])
+
+
+def test_ss_kernels_never_fall_back_on_card():
+    ps, a = _ss_case(4, 1, 6, "1", seed=0, t=3)
+    with pytest.raises(ValueError, match="ctx_dim % 4"):
+        lstm_ss.ss_fwd(*_ss_fwd_args(ps, a))
+    with pytest.raises(ValueError, match="hidden % 32"):
+        lstm_ss.kernel_rows(48, 1, 3, 0)

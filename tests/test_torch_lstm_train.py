@@ -219,7 +219,9 @@ def test_apply_fused_tf_raises_on_unported_tiers():
     _, tcfg, jparams, past, fut = _seq2seq_case(1, seed=0)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     tp, tf = torch.from_numpy(past), torch.from_numpy(fut)
+    # a static (B, C) context is ported; the per-step (B, T, C) context of
+    # the cross_user peer_align tier is not
     with pytest.raises(NotImplementedError, match="cross_user"):
-        seq2seq.apply_fused_tf(tparams, tcfg, tp, tf, context=torch.zeros(8, 4))
+        seq2seq.apply_fused_tf(tparams, tcfg, tp, tf, context=torch.zeros(8, tcfg.h_out, 4))
     with pytest.raises(NotImplementedError, match="bf16-compute"):
         seq2seq.apply_fused_tf(tparams, tcfg, tp, tf, compute_dtype=torch.bfloat16)

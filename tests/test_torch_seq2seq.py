@@ -75,11 +75,19 @@ def test_apply_with_context_matches_jax(per_step):
 
 
 def test_rng_scheduled_sampling_is_not_ported():
+    """The rng mode is ported as a torch draw (jax.random's bits cannot be
+    reproduced): it equals the explicit-coins mode with the coins that
+    draw_coins takes from a generator of the same seed, and a JAX key is
+    refused."""
     _, tcfg, _, tparams = _setup()
     past, fut = _windows(tcfg, 2, seed=0)
-    with pytest.raises(NotImplementedError, match="scheduled sampling"):
-        seq2seq.apply(tparams, tcfg, torch.from_numpy(past), torch.from_numpy(fut),
-                      rng=torch.Generator(), teacher_prob=0.5)
+    x, f = torch.from_numpy(past), torch.from_numpy(fut)
+    out = seq2seq.apply(tparams, tcfg, x, f, rng=torch.Generator().manual_seed(3), teacher_prob=0.5)
+    coins = seq2seq.draw_coins(torch.Generator().manual_seed(3), 0.5, tcfg.h_out, 2)
+    assert coins.shape == (tcfg.h_out, 2, 1) and set(coins.unique().tolist()) <= {0.0, 1.0}
+    assert torch.equal(out, seq2seq.apply(tparams, tcfg, x, f, coins=coins))
+    with pytest.raises(TypeError, match="torch.Generator"):
+        seq2seq.apply(tparams, tcfg, x, f, rng=np.zeros(2, np.uint32), teacher_prob=0.5)
 
 
 def test_full_width_decode_matches_jax_xla():
@@ -130,8 +138,11 @@ def test_init_layout_and_device():
 
 
 def test_get_family():
+    from longterm360fov_tpu_torch.models import cross_user
+
     assert get_family("seq2seq") is seq2seq
-    for name in ("cross_user", "fusion", "transformer"):
+    assert get_family("cross_user") is cross_user
+    for name in ("fusion", "transformer"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_family(name)
     with pytest.raises(KeyError):

@@ -168,8 +168,8 @@ def test_train_trajectory_matches_jax(case):
 
 
 def test_unported_training_modes_raise():
-    for over, match in ((dict(scheduled_sampling=True), "scheduled sampling"),
-                        (dict(data_parallel=True), "parallelism")):
+    # scheduled sampling is ported (tests/test_torch_cross_user.py)
+    for over, match in ((dict(data_parallel=True), "parallelism"),):
         _, tcfg = _cfgs(**over)
         with pytest.raises(NotImplementedError, match=match):
             train.make_train_step(tcfg, seq2seq.apply, train.make_optimizer(tcfg))
