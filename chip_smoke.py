@@ -7,13 +7,18 @@ one line each or more:
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
 2. the build of every kernel source in ``csrc/`` (one nvcc each, started
    together), with its time, registers and spills;
-3. each kernel against its plain PyTorch version at full width (hidden 128,
-   30 + 30 steps), at batches that are not a multiple of the kernels' row
-   tiles: ``fused_serve`` without and with a static context (C = 128),
+3. each kernel against its plain PyTorch version at full width (hidden 128),
+   at batches that are not a multiple of the kernels' row tiles:
+   ``fused_serve`` without and with a static context (C = 128),
    ``fused_encode``, the ``lstm_seq_states`` forward, backward-recurrence and
    dW-reduction kernels, and the ``ss_decode`` forward, backward-recurrence,
-   dW and dproj kernels (1 and 2 layers, with and without a context, f32
-   and bf16 residuals, Bernoulli, all-teacher and all-model coins);
+   dW and dproj kernels (30 + 30 steps; 1 and 2 layers, with and without a
+   context, f32 and bf16 residuals, Bernoulli, all-teacher and all-model
+   coins); the lockstep-peer tier of ``fused_serve`` (``peer_context`` and
+   the serve kernel with a per-step context) and the six
+   ``aligned_ss_decode`` kernels (100 + 100 steps, C = 128, K = 7 and 3
+   peers with a row whose every peer is masked, 1 and 2 layers, both
+   residual types, the three coin kinds);
 4. the ``seq2seq-tf-30`` serving main path: ``serving.make_serve_fn`` behind
    a ``DynamicBatcher`` answers 64 concurrent single-viewer requests and one
    bulk request; every answer equals the direct batched call and the numpy
@@ -35,7 +40,18 @@ one line each or more:
    evaluation through the serving kernels, checkpoints, a resume that equals
    the uninterrupted run (coins included), one step through the kernels
    against plain autograd with the same coins, the step's speed, and the
-   ``ss_decode`` kernels alone against plain and cuBLAS.
+   ``ss_decode`` kernels alone against plain and cuBLAS;
+8. the ``stacked-ss-crossuser-10s`` serving main path (K = 7 time-aligned
+   peers, 100 frames in and out): the batcher in front of the lockstep tier,
+   every answer against the port's plain path on the CPU and the numpy
+   oracle given the same per-step context; the grouped gateway against
+   per-row serving; serve-bench at B = 16384 and 65536; a profile of one
+   call; the tier and each of its kernels alone against plain (and
+   ``peer_context`` against cuDNN at the smaller batch);
+9. the ``stacked-ss-crossuser-10s`` training main path: ``train.train_loop``
+   at B = 4096 through ``aligned_ss_decode`` (peers and decoder) and
+   ``lstm_seq_states`` (encoder), as in 7, and the aligned kernels alone
+   against plain and cuDNN/cuBLAS.
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -60,11 +76,12 @@ from longterm360fov_tpu_torch import checkpoint, cli, data, infer, oracle, servi
 from longterm360fov_tpu_torch.config import get_preset
 from longterm360fov_tpu_torch.models import cross_user, get_family
 from longterm360fov_tpu_torch.models.cell import LSTMParams
-from longterm360fov_tpu_torch.ops import _build, fused_lstm, lstm_ss, lstm_train
+from longterm360fov_tpu_torch.ops import _build, fused_lstm, lstm_align, lstm_ss, lstm_train
 from longterm360fov_tpu_torch.params import params_from_numpy, tree_leaves
 
 PRESET = "seq2seq-tf-30"
 CU_PRESET = "stacked-ss-crossuser"
+CU10_PRESET = "stacked-ss-crossuser-10s"
 KERNEL_TOL = 1e-4  # serve kernel vs plain, normalized outputs, f32 after 60 steps
 ORACLE_TOL = 1e-4  # batcher answers vs the numpy oracle or the CPU plain path, unit xyz
 # encode kernel vs plain: exact f32 FMAs in another order over 30 steps of a
@@ -79,6 +96,12 @@ ENC_TOL = 1e-5
 # B·T = 122,970 terms in another order.
 FWD_TOL = 1e-5
 BWD_REL_TOL = 1e-4
+# one train step through the kernels against plain autograd, gradients per
+# leaf relative to max|plain|: f32 residuals 1e-4; bf16 residuals, the main
+# path's default, 2e-2 (the JAX suite's bound for ss_decode) and 3e-2 for
+# the lockstep decoder (tests/test_lstm_align.py's bound for its bf16 tier)
+STEP_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+ALIGN_STEP_REL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 TRAIN_B = 4096  # the batch scripts/bench_train.py trains both presets at
 F32_FLOPS = 67e12  # H100 SXM f32 FMA peak outside the tensor cores (data sheet)
 HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
@@ -86,8 +109,11 @@ HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
 SERVE_SRC = "longterm360fov_tpu_torch/csrc/fused_serve.cu"
 LSTM_SRC = "longterm360fov_tpu_torch/csrc/lstm_train.cu"
 SS_SRC = "longterm360fov_tpu_torch/csrc/lstm_ss.cu"
+ALIGN_SRC = "longterm360fov_tpu_torch/csrc/lstm_align.cu"
 S2S_SERVE, S2S_TRAIN = "serve seq2seq-tf-30", "train seq2seq-tf-30"
 CU_SERVE, CU_TRAIN = "serve stacked-ss-crossuser", "train stacked-ss-crossuser"
+CU10_SERVE, CU10_TRAIN = "serve stacked-ss-crossuser-10s", "train stacked-ss-crossuser-10s"
+ALIGN_FWD, ALIGN_BWD = "longterm360fov_tpu/ops/lstm_align.py:244", "longterm360fov_tpu/ops/lstm_align.py:570"
 # one entry per kernel: "path" is the main path whose run gives its launches
 KERNELS = [
     ("fused_serve", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:503", fused_lstm.fused_serve, S2S_SERVE),
@@ -100,6 +126,15 @@ KERNELS = [
     ("ss_decode_bwd", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:404", lstm_ss.ss_bwd, CU_TRAIN),
     ("ss_decode_dw", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:404", lstm_ss.ss_dw, CU_TRAIN),
     ("ss_decode_dproj", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:404", lstm_ss.ss_dproj, CU_TRAIN),
+    ("fused_serve_peers", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:503", fused_lstm.fused_serve_peers,
+     CU10_SERVE),
+    ("peer_context", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:503", fused_lstm.peer_context, CU10_SERVE),
+    ("aligned_peer_fwd", ALIGN_SRC, ALIGN_FWD, lstm_align.peer_fwd, CU10_TRAIN),
+    ("aligned_dec_fwd", ALIGN_SRC, ALIGN_FWD, lstm_align.dec_fwd, CU10_TRAIN),
+    ("aligned_dec_bwd", ALIGN_SRC, ALIGN_BWD, lstm_align.dec_bwd, CU10_TRAIN),
+    ("aligned_peer_bwd", ALIGN_SRC, ALIGN_BWD, lstm_align.peer_bwd, CU10_TRAIN),
+    ("aligned_dec_dw", ALIGN_SRC, ALIGN_BWD, lstm_align.dec_dw, CU10_TRAIN),
+    ("aligned_peer_dw", ALIGN_SRC, ALIGN_BWD, lstm_align.peer_dw, CU10_TRAIN),
 ]
 WRAPPERS = {name: wrapper for name, _, _, wrapper, _ in KERNELS}
 ERRS = {name: 0.0 for name in WRAPPERS}  # max abs error vs plain over every check
@@ -356,6 +391,95 @@ def check_ss_kernels(dev, batch, layers, ctx_dim, rd, coins, seed):
     return errs
 
 
+def peer_inputs(rng, dev, past_n, k, t):
+    """K peer futures per viewer, unit vectors in the viewer's anchor frame
+    (as ``batch_extras`` gives them), and mask weights ``mask / max(Σ mask,
+    1)`` with row 0 all masked."""
+    batch = past_n.shape[0]
+    anchor = past_n.new_tensor(unit_pasts(rng, batch, 1))  # (B, 1, 3)
+    pxs = torch.as_tensor(unit_pasts(rng, batch * k, t), device=dev).reshape(batch, k, t, 3)
+    pxs = (pxs - anchor[:, None]).contiguous()
+    m = (rng.random((batch, k)) < 0.6).astype(np.float32)
+    m[0] = 0.0
+    w = torch.tensor(m / np.maximum(m.sum(1, keepdims=True), 1.0), device=dev)
+    return pxs, w
+
+
+def check_peer_serve(dev, batch, layers, k, seed, t=100):
+    """The lockstep tier (peer_context, then the serve kernel with the
+    per-step context) against fused_serve_reference with the same peers →
+    max abs error of each kernel."""
+    rng = np.random.default_rng(seed)
+    enc, dec, peer = stack(rng, dev, 3, layers), stack(rng, dev, 3 + 128, layers), stack(rng, dev, 3, 1)[0]
+    pw, pb = randn(rng, dev, (128, 3), 0.1), randn(rng, dev, (3,), 0.1)
+    past_n = windows.normalize_window(torch.as_tensor(unit_pasts(rng, batch, t), device=dev))[0].contiguous()
+    pxs, w = peer_inputs(rng, dev, past_n, k, t)
+    ctx = fused_lstm.peer_context(peer, pxs, w)
+    ctx_p = fused_lstm.peer_context_reference(peer, pxs, w)
+    args = (enc, dec, pw, pb, past_n, t)
+    out = fused_lstm.fused_serve(*args, peer_params=peer, peer_xs=pxs, peer_w=w)
+    torch.cuda.synchronize()
+    ref = fused_lstm.fused_serve_reference(*args, peer_params=peer, peer_xs=pxs, peer_w=w)
+    errs = {"peer_context": (ctx - ctx_p).abs().max().item(), "fused_serve_peers": (out - ref).abs().max().item()}
+    what = f"B={batch}, L={layers}, K={k}"
+    if out.shape != (batch, t, 3) or not torch.isfinite(out).all() or ctx[0].any():
+        raise AssertionError(f"lockstep tier output misshapen, not finite or a masked row not zero ({what})")
+    if not (errs["peer_context"] <= ENC_TOL and errs["fused_serve_peers"] <= KERNEL_TOL):
+        raise AssertionError(f"the lockstep tier disagrees with its plain version ({what}): {errs}")
+    for name, err in errs.items():
+        note_err(name, err)
+    return errs
+
+
+def aligned_case(dev, batch, layers, k, coins, seed, t=100):
+    """ss_case's decoder inputs, plus a peer cell, peer windows (B·K, T, D)
+    and mask weights with an all-masked row."""
+    ps, a = ss_case(dev, batch, layers, 128, coins, seed, t=t)
+    rng = np.random.default_rng(seed + 100)
+    past_n = randn(rng, dev, (batch, 1, 3))
+    pxs, w = peer_inputs(rng, dev, past_n, k, t)
+    a.update(peer=stack(rng, dev, 3, 1)[0], pxs=pxs.reshape(batch * k, t, 3), pwt=w)
+    return ps, a
+
+
+def check_aligned_kernels(dev, batch, layers, k, rd, coins, seed):
+    """The six aligned_ss_decode kernels against their plain versions on the
+    same inputs: the peer forward on the peer h, c and ctx; the decoder
+    forward, fed the plain ctx, on ys and its residuals; the decoder
+    backward on dgates, dy, dteacher, dy0, dh0, dc0 and the per-step dctx;
+    the peer backward, fed the plain dctx, on the peer dgates, dpxs and
+    dpwt; the reductions, fed the plain dgates, on dW and db → max abs error
+    of each."""
+    ps, a = aligned_case(dev, batch, layers, k, coins, seed)
+    what = f"B={batch}, L={layers}, K={k}, coins {coins}"
+    php, pcp, ctx = lstm_align.peer_fwd(a["peer"], a["pxs"], a["pwt"], rd)
+    php_p, pcp_p, ctx_p = lstm_align._peer_fwd_reference(a["peer"], a["pxs"], a["pwt"], rd)
+    fwd_args = (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], ctx_p)
+    ys, res = lstm_align.dec_fwd(*fwd_args, rd)
+    ys_p, res_p = lstm_ss._forward_reference(*fwd_args, rd)
+    torch.cuda.synchronize()
+    errs = {"peer_fwd": check_fwd("aligned_peer_fwd", [(ctx, ctx_p), (php, php_p), (pcp, pcp_p)], rd, what),
+            "dec_fwd": check_fwd("aligned_dec_fwd", [(ys, ys_p)] + list(zip(
+                res.hs + res.cs + res.gs, res_p.hs + res_p.cs + res_p.gs)), rd, what)}
+    bw = lstm_align.dec_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
+    bw_p = lstm_ss._bwd_recurrence_reference(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128,
+                                             step_ctx=True)
+    pb = lstm_align.peer_bwd(a["peer"], a["pxs"], a["pwt"], php, pcp, bw_p[6])
+    pb_p = lstm_align._peer_bwd_reference(a["peer"], a["pxs"], a["pwt"], php, pcp, bw_p[6])
+    dw_in = (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["pwt"], php, ys, res, bw_p[0])
+    dps, dps_p = lstm_align.dec_dw(*dw_in), lstm_align._dw_reference(*dw_in)
+    pdw = lstm_align.peer_dw(a["peer"], a["pxs"], php, pb_p[0])
+    pdw_p = lstm_align._peer_dw_reference(a["peer"], a["pxs"], php, pb_p[0])
+    torch.cuda.synchronize()
+    errs["dec_bwd"] = check_bwd("aligned_dec_bwd", list(zip(bw[0], bw_p[0])) + list(zip(bw[1:], bw_p[1:])),
+                                f"{what}, {rd}")
+    errs["peer_bwd"] = check_bwd("aligned_peer_bwd", list(zip(pb, pb_p)), f"{what}, {rd}")
+    errs["dec_dw"] = check_bwd("aligned_dec_dw", [(x.w, y.w) for x, y in zip(dps, dps_p)]
+                               + [(x.b, y.b) for x, y in zip(dps, dps_p)], f"{what}, {rd}")
+    errs["peer_dw"] = check_bwd("aligned_peer_dw", [(pdw.w, pdw_p.w), (pdw.b, pdw_p.b)], f"{what}, {rd}")
+    return errs
+
+
 def check_all_kernels(dev):
     """Phase 3."""
     errs = {}
@@ -382,6 +506,20 @@ def check_all_kernels(dev):
                     key = f"B={batch} L={layers} C={ctx_dim} {str(rd)[6:]} coins={coins}"
                     errs[key] = check_ss_kernels(dev, batch, layers, ctx_dim, rd, coins, seed=layers)
     print(f"ss_decode kernels vs plain, hidden 128, T=30, D=3, max_abs_err {json.dumps(errs)} "
+          f"(forward {FWD_TOL}, plus one bf16 step on bf16 residuals; backward and reductions "
+          f"{BWD_REL_TOL} of max|plain| per output)", flush=True)
+    errs = {f"B={b} L={l} K={k}": check_peer_serve(dev, b, l, k, seed=l + k)
+            for b, l, k in ((4099, 1, 7), (4099, 2, 7), (4099, 2, 3), (16384, 2, 7))}
+    print(f"lockstep fused_serve tier vs plain, hidden 128, C=128, 100+100 steps, a row with every peer "
+          f"masked: max_abs_err {json.dumps(errs)} (peer_context {ENC_TOL}, outputs {KERNEL_TOL})", flush=True)
+    errs = {}
+    for batch, coin_kinds in ((4099, ("bernoulli", "1", "0")), (TRAIN_B, ("bernoulli",))):
+        for layers, k in ((1, 3), (2, 7)):
+            for rd in (torch.float32, torch.bfloat16):
+                for coins in coin_kinds:
+                    key = f"B={batch} L={layers} K={k} {str(rd)[6:]} coins={coins}"
+                    errs[key] = check_aligned_kernels(dev, batch, layers, k, rd, coins, seed=layers + k)
+    print(f"aligned_ss_decode kernels vs plain, hidden 128, C=128, T=100, D=3, max_abs_err {json.dumps(errs)} "
           f"(forward {FWD_TOL}, plus one bf16 step on bf16 residuals; backward and reductions "
           f"{BWD_REL_TOL} of max|plain| per output)", flush=True)
 
@@ -514,20 +652,18 @@ def synthetic_windows(cfg):
     return data.windows_from_store(store, cfg.model.h_in, cfg.model.h_out, stride=cfg.stride, n_other_users=k)
 
 
-def drive_training(cfg, path, dev):
+def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL):
     """train_loop through the kernels with evaluation and checkpoints, then
     a resume from the middle checkpoint, which must equal the uninterrupted
     run (the scheduled-sampling coins are drawn from (seed, step), so they
     are equal too); then one step through the kernels against one through
     plain autograd, from the trained state on a fresh batch with the same
-    coins."""
+    coins, within ``step_tol`` per residual dtype. ``also``: the kernels of
+    other rows the path must launch (its evaluation's serving kernels, the
+    encoder's)."""
     fam = get_family(cfg.model_family)
     train_d, test_d = synthetic_windows(cfg)
     run = dict(device=dev, eval_data=test_d, **family_fns(fam))
-    # logged steps evaluate through the family's serving kernels; cross_user
-    # trains its encoder and peer encoder on lstm_seq_states
-    also = ["fused_serve"] + (["fused_encode", "lstm_seq_states_fwd", "lstm_seq_states_bwd",
-                               "lstm_seq_states_dw"] if cfg.model_family == "cross_user" else [])
     init = train.init_state(cfg, fam.init, train.make_optimizer(cfg), device=dev)
     with tempfile.TemporaryDirectory() as ck_dir:
         (full, hist), launches = drive(path, lambda: train.train_loop(
@@ -569,8 +705,7 @@ def drive_training(cfg, path, dev):
         raise AssertionError("the resumed run differs from the uninterrupted one")
 
     # one step, kernels against plain autograd ("xla"), same coins: loss
-    # and gradients (f32 residuals tight; bf16 residuals, the main path's
-    # default, at the JAX suite's 2e-2 bound), then the params after the update
+    # and gradients (step_tol), then the params after the update
     batch = next(train.batch_iterator(train_d, cfg.batch_size, seed=1))
     plain = cfg.replace(train_impl="xla")
     mid_step = cfg.steps // 2  # coins of a step where teacher and model inputs mix
@@ -582,7 +717,8 @@ def drive_training(cfg, path, dev):
     extras = family_fns(fam)["extras_fn"]
     (l_p, _), g_p = train.make_grad_fn(plain, fam.apply, extras_fn=extras)(full.params, batch, gen(), tp)
     res_one = {}
-    for rd, rel in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+    for rd in (torch.float32, torch.bfloat16):
+        rel = step_tol[str(rd)[6:]]
         (l_k, _), g_k = train.make_grad_fn(cfg, fam.apply, **family_fns(fam, residual_dtype=rd))(
             full.params, batch, gen(), tp)
         g_err = max((a - b).abs().max().item() / b.abs().max().item()
@@ -740,16 +876,15 @@ def time_lstm_kernels(dev, smi):
 # --------------------------------------------------------------- stacked-ss-crossuser serving
 
 
-def drive_cu_serving(cfg, dev, params_np, smi):
+def drive_cu_serving(cfg, dev, params_np, path, n_single, n_bulk):
     """Single requests with K peers, with fewer (the rest zero, masked by
     the default mask), with none (zero context), and one bulk request with
     an explicit mask, through the batcher; the answers against the port's
-    plain path on the CPU and, given the same peer context, the numpy
-    oracle's decoder."""
+    plain path on the CPU and, given the same peer context (static, or per
+    step under peer_align), the numpy oracle's decoder."""
     params = params_from_numpy(params_np, dev)
     m, k = cfg.model, cfg.n_other_users
     rng = np.random.default_rng(8)
-    n_single, n_bulk = 48, 1000
     pasts = unit_pasts(rng, n_single + n_bulk, m.h_in)
     others = unit_pasts(rng, (n_single + n_bulk) * k, m.h_out).reshape(-1, k, m.h_out, 3)
     requests = []
@@ -766,7 +901,7 @@ def drive_cu_serving(cfg, dev, params_np, smi):
     mask = (np.abs(others).max(axis=(2, 3)) > 0).astype(np.float32)
     mask[n_single:] = (rng.random((n_bulk, k)) < 0.6).astype(np.float32)
     bulk = {"past": pasts[n_single:], "other_future": others[n_single:], "other_mask": mask[n_single:]}
-    (got, stats, _), launches = drive(CU_SERVE, lambda: serve_batched(cfg, cross_user, dev, params, requests, bulk))
+    (got, stats, _), launches = drive(path, lambda: serve_batched(cfg, cross_user, dev, params, requests, bulk))
     xyz = to_xyz(got)
 
     params_cpu = params_from_numpy(params_np, "cpu")
@@ -775,10 +910,10 @@ def drive_cu_serving(cfg, dev, params_np, smi):
     d_plain = float(np.abs(xyz - plain).max())
     with torch.inference_mode():
         anchor = torch.as_tensor(pasts[:, -1:])
-        ctx = cross_user.encode_peers(params_cpu, m, torch.as_tensor(others) - anchor[:, None],
-                                      torch.as_tensor(mask)).numpy()
+        encode = cross_user.encode_peers_aligned if m.peer_align else cross_user.encode_peers
+        ctx = encode(params_cpu, m, torch.as_tensor(others) - anchor[:, None], torch.as_tensor(mask)).numpy()
     d_oracle = float(np.abs(xyz - oracle.oracle_predict(params_np, m, pasts, context=ctx)).max())
-    print(f"{CU_SERVE}: {n_single} single requests (K={k}, 2 and 0 peers) + 1 bulk ({n_bulk} rows, "
+    print(f"{path}: {n_single} single requests (K={k}, 2 and 0 peers) + 1 bulk ({n_bulk} rows, "
           f"explicit mask) in {stats['batches']} batches; max |xyz - CPU plain path| {d_plain:.3e}; "
           f"max |xyz - numpy oracle given the peer context| {d_oracle:.3e} (tolerance {ORACLE_TOL})", flush=True)
     if not (d_plain <= ORACLE_TOL and d_oracle <= ORACLE_TOL):
@@ -817,6 +952,106 @@ def time_encode_kernel(dev, rows, smi, with_library):
     print(f"fused_encode alone ({rows} rows, L=1, T=30; ms, CUDA events, library cuDNN nn.LSTM, {smi}): "
           f"{json.dumps(ms)}; bound {TIMES['fused_encode']['bound_ms']:.3f} ms by "
           f"{TIMES['fused_encode']['bound_by']}; max_abs_err vs plain {err:.3e}{note}", flush=True)
+
+
+def check_grouped(cfg, dev, params, rows, n_videos):
+    """The grouped gateway (each video's K peers sent once, gathered per row
+    on the card) against per-row serving of the same windows: equal
+    answers."""
+    rng = np.random.default_rng(9)
+    k, m = cfg.n_other_users, cfg.model
+    keys = rng.integers(0, n_videos, size=rows).tolist()
+    sets = {v: unit_pasts(rng, k, m.h_out) for v in range(n_videos)}
+    sets[0][k - 2:] = 0.0  # a video with two peers absent
+    pasts = unit_pasts(rng, rows, m.h_in)
+    fn = serving.make_grouped_serve_fn(params, cfg, cross_user, device=dev, packed=True)
+    got = serving.grouped_predict(fn, pasts, keys, sets)
+    per_row = serving.make_serve_fn(params, cfg, cross_user, device=dev, impl="fused")
+    of = np.stack([sets[v] for v in keys])
+    direct = per_row.unpack(per_row({"past": pasts, "other_future": of,
+                                     "other_mask": (np.abs(of).max(axis=(2, 3)) > 0).astype(np.float32)})
+                            .cpu().numpy())
+    d = max(float(np.abs(got[x] - direct[x]).max()) for x in ("yaw", "pitch"))
+    same_tiles = bool((got["prefetch"] == direct["prefetch"]).all())
+    print(f"{CU10_SERVE}: grouped gateway, {rows} windows of {n_videos} videos (K={k} peers sent once a "
+          f"video): max |yaw,pitch - per-row serving| {d:.3e}, prefetch equal {same_tiles} (tolerance 1e-5)",
+          flush=True)
+    if not (d <= 1e-5 and same_tiles):
+        raise AssertionError("the grouped gateway differs from per-row serving")
+
+
+def time_peer_serve(dev, params, cfg, batch, iters, smi):
+    """The lockstep tier at a main-path batch: checked against its plain
+    version on these inputs, then timed in turns as a whole and per kernel
+    (the serve kernel with the per-step context, fed the peer context;
+    ``peer_context`` alone is timed by time_peer_context). No single PyTorch
+    call computes the decode with feedback: no library time."""
+    m = cfg.model
+    rng = np.random.default_rng(1)
+    x_n = windows.normalize_window(torch.as_tensor(unit_pasts(rng, batch, m.h_in), device=dev))[0]
+    x_n = x_n.contiguous()
+    pxs, w = peer_inputs(rng, dev, x_n, cfg.n_other_users, m.h_out)
+    peer = params["peer_encoder"]
+    args = (params["encoder"], params["decoder"], params["proj"]["w"], params["proj"]["b"], x_n, m.h_out)
+    out = fused_lstm.fused_serve(*args, peer_params=peer, peer_xs=pxs, peer_w=w)
+    ref = fused_lstm.fused_serve_reference(*args, peer_params=peer, peer_xs=pxs, peer_w=w)
+    err = (out - ref).abs().max().item()
+    if out.shape != ref.shape or not torch.isfinite(out).all() or not err <= KERNEL_TOL:
+        raise AssertionError(f"the lockstep tier at B={batch} disagrees with its plain version: {err:.3e}")
+    note_err("fused_serve_peers", err)
+    tier = in_turns({"plain": lambda: fused_lstm.fused_serve_reference(*args, peer_params=peer, peer_xs=pxs,
+                                                                         peer_w=w),
+                     "kernel": lambda: fused_lstm.fused_serve(*args, peer_params=peer, peer_xs=pxs, peer_w=w)},
+                    {"plain": 1, "kernel": iters})
+    ctx = fused_lstm.peer_context(peer, pxs, w)
+    ms = in_turns({"plain": lambda: fused_lstm.fused_serve_reference(*args, ctx),
+                   "kernel": lambda: fused_lstm._launch_serve(*args, ctx, step_ctx=True)},
+                  {"plain": 1, "kernel": iters})
+    ps = params["encoder"] + params["decoder"]
+    flop = serve_flop(batch, m.h_in, m.h_out, [m.d] + [m.hidden] * (m.layers - 1),
+                      [m.d + m.ctx_dim] + [m.hidden] * (m.layers - 1), m.hidden, m.d)
+    record("fused_serve_peers", ms, flop, [x_n, ctx, params["proj"]["w"], params["proj"]["b"]]
+           + [t for p in ps for t in p], [out])
+    tier_flop = flop + stack_flop(batch * cfg.n_other_users, m.h_out, [m.d], m.ctx_dim)
+    print(f"lockstep fused_serve tier alone (B={batch}, L={m.layers}, K={cfg.n_other_users}, "
+          f"{m.h_in}+{m.h_out} steps; ms, CUDA events, {smi}): whole tier {json.dumps(tier)} "
+          f"({tier_flop / tier['kernel'] / 1e9:.1f} TFLOP/s); the serve kernel with the per-step context "
+          f"{json.dumps(ms)}, bound {TIMES['fused_serve_peers']['bound_ms']:.3f} ms by "
+          f"{TIMES['fused_serve_peers']['bound_by']}; max_abs_err vs plain {err:.3e} (tolerance {KERNEL_TOL})",
+          flush=True)
+
+
+def time_peer_context(dev, peer, batch, k, t, smi, with_library):
+    """peer_context alone over B·K peer rows, checked first, against its
+    plain version and, ``with_library``, cuDNN nn.LSTM returning every
+    step's h (TF32 off; its workspace grows with rows x steps, so it runs
+    only at the smaller batch). The last call's numbers go to the kernels
+    line."""
+    rng = np.random.default_rng(2)
+    x_n = randn(rng, dev, (batch, 1, 3))
+    pxs, w = peer_inputs(rng, dev, x_n, k, t)
+    out = fused_lstm.peer_context(peer, pxs, w)
+    err = (out - fused_lstm.peer_context_reference(peer, pxs, w)).abs().max().item()
+    if not err <= ENC_TOL:
+        raise AssertionError(f"peer_context at B={batch} disagrees with its plain version: {err:.3e}")
+    note_err("peer_context", err)
+    fns = {"plain": lambda: fused_lstm.peer_context_reference(peer, pxs, w),
+           "kernel": lambda: fused_lstm.peer_context(peer, pxs, w)}
+    if with_library:
+        net = cudnn_lstm([peer], 3, dev, training=False)
+        flat = pxs.reshape(batch * k, t, 3)
+
+        def library():
+            with torch.no_grad():
+                return net(flat)[0]
+
+        fns["library"] = library
+    ms = in_turns(fns, {"plain": 1, "kernel": 3, "library": 3})
+    rows = batch * k
+    record("peer_context", ms, stack_flop(rows, t, [3], 128) + 2 * rows * t * 128, [pxs, w, *peer], [out])
+    print(f"peer_context alone (B={batch}, K={k}: {rows} peer rows, T={t}; ms, CUDA events, library cuDNN "
+          f"nn.LSTM over the peer rows, {smi}): {json.dumps(ms)}; bound {TIMES['peer_context']['bound_ms']:.3f} "
+          f"ms by {TIMES['peer_context']['bound_by']}; max_abs_err vs plain {err:.3e}", flush=True)
 
 
 # --------------------------------------------------------------- stacked-ss-crossuser training
@@ -877,6 +1112,91 @@ def time_ss_kernels(dev, smi):
           f"coins, CUDA events; library: one cuBLAS bmm / matmul; {smi}): {json.dumps(out)}", flush=True)
 
 
+def time_aligned_kernels(dev, smi):
+    """Each aligned_ss_decode kernel alone against its plain version at the
+    training path's shapes (B = 4096, K = 7, T = 100, D = 3, C = H = 128,
+    two layers, bf16 residuals, Bernoulli coins), in turns; the peer forward
+    and backward also against cuDNN nn.LSTM (forward; backward data with
+    the peers' upstream gradient), the reductions against one cuBLAS call.
+    No single PyTorch call computes the decoder's recurrences with feedback
+    and a per-step context."""
+    layers, k, c, rd, t = 2, 7, 128, torch.bfloat16, 100
+    ps, a = aligned_case(dev, TRAIN_B, layers, k, "bernoulli", seed=11)
+    peer, pxs, pwt = a["peer"], a["pxs"], a["pwt"]
+    php, pcp, ctx = lstm_align.peer_fwd(peer, pxs, pwt, rd)
+    fwd_args = (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], ctx)
+    ys, res = lstm_align.dec_fwd(*fwd_args, rd)
+    bwd_args = (ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], c)
+    bw = lstm_align.dec_bwd(*bwd_args)
+    dgates, dctx = bw[0], bw[6]
+    pbw = lstm_align.peer_bwd(peer, pxs, pwt, php, pcp, dctx)
+    dpg = pbw[0]
+    dw_in = (ps, a["h0"], a["y0"], a["teacher"], a["coins"], pwt, php, ys, res, dgates)
+    net = cudnn_lstm([peer], 3, dev, training=True)
+    x_g = pxs.clone().requires_grad_(True)
+    dh_up = pwt.reshape(-1, 1, 1) * dctx.repeat_interleave(k, dim=0)  # the peers' upstream dh
+    calls = {
+        "aligned_peer_fwd": dict(kernel=lambda: lstm_align.peer_fwd(peer, pxs, pwt, rd),
+                                 plain=lambda: lstm_align._peer_fwd_reference(peer, pxs, pwt, rd),
+                                 library=lambda: net(x_g)),
+        "aligned_dec_fwd": dict(kernel=lambda: lstm_align.dec_fwd(*fwd_args, rd),
+                                plain=lambda: lstm_ss._forward_reference(*fwd_args, rd)),
+        "aligned_dec_bwd": dict(kernel=lambda: lstm_align.dec_bwd(*bwd_args),
+                                plain=lambda: lstm_ss._bwd_recurrence_reference(*bwd_args, step_ctx=True)),
+    }
+    out = {name: in_turns(fns, {"plain": 2, "kernel": 5, "library": 5}) for name, fns in calls.items()}
+    # cuDNN's backward needs its forward's reserve space (about 29 GiB here):
+    # one forward kept for it, timed alone, then freed before the reductions
+    y_lib, _ = net(x_g)
+    out["aligned_peer_bwd"] = in_turns(dict(
+        kernel=lambda: lstm_align.peer_bwd(peer, pxs, pwt, php, pcp, dctx),
+        plain=lambda: lstm_align._peer_bwd_reference(peer, pxs, pwt, php, pcp, dctx),
+        library=lambda: torch.autograd.grad(y_lib, x_g, dh_up, retain_graph=True)),
+        {"plain": 2, "kernel": 5, "library": 5})
+    del y_lib, net, x_g, dh_up
+    torch.cuda.empty_cache()
+    x0 = lstm_ss._layer0_input(a["y0"], a["teacher"], a["coins"], lstm_align._rebuilt_ctx(php, pwt), ys)
+    zs = [z_rows(x0 if l == 0 else res.hs[l - 1].float(),
+                 torch.cat([a["h0"][l][:, None], res.hs[l][:, :-1].float()], dim=1)) for l in range(layers)]
+    zp = z_rows(pxs, torch.cat([torch.zeros_like(php[:, :1]), php[:, :-1]], dim=1).float())
+    dpg2 = dpg.reshape(-1, 4 * c)
+    calls = {
+        "aligned_dec_dw": dict(kernel=lambda: lstm_align.dec_dw(*dw_in),
+                               plain=lambda: lstm_align._dw_reference(*dw_in),
+                               library=dw_library(zs, dgates)),
+        "aligned_peer_dw": dict(kernel=lambda: lstm_align.peer_dw(peer, pxs, php, dpg),
+                                plain=lambda: lstm_align._peer_dw_reference(peer, pxs, php, dpg),
+                                library=lambda: zp.t() @ dpg2),
+    }
+    out.update({name: in_turns(fns, {"plain": 2, "kernel": 5, "library": 5}) for name, fns in calls.items()})
+    rows = TRAIN_B * k
+    ins = [3 + c] + [128] * (layers - 1)
+    proj = 2 * TRAIN_B * t * 128 * 3
+    peer_pass = stack_flop(rows, t, [3], c)
+    w = [x for p in ps for x in p]
+    res_all = res.hs + res.cs + res.gs
+    work = {
+        "aligned_peer_fwd": (peer_pass + 2 * rows * t * c, [pxs, pwt, *peer], [php, pcp, ctx]),
+        "aligned_dec_fwd": (stack_flop(TRAIN_B, t, ins, 128) + proj,
+                            [a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], ctx, a["proj_w"],
+                             a["proj_b"], *w], [ys, *res_all]),
+        "aligned_dec_bwd": (stack_flop(TRAIN_B, t, ins, 128) + proj,
+                            [a["dys"], a["c0"], a["coins"], a["proj_w"], *w, *res.cs, *res.gs],
+                            [*dgates, *bw[1:]]),
+        "aligned_peer_bwd": (2 * peer_pass, [pxs, pwt, *peer, php, pcp, dctx], list(pbw)),
+        "aligned_dec_dw": (stack_flop(TRAIN_B, t, ins, 128) + 2 * TRAIN_B * t * 4 * 128 * layers
+                           + 2 * TRAIN_B * t * c * k,
+                           [a["h0"], a["y0"], a["teacher"], a["coins"], pwt, php, ys, *res.hs, *res.cs[:-1],
+                            *res.gs[:-1], *dgates], w),
+        "aligned_peer_dw": (peer_pass + 2 * rows * t * 4 * c, [pxs, php, dpg], list(peer)),
+    }
+    for name in work:
+        record(name, out[name], *work[name])
+    print(f"aligned_ss_decode kernels alone (ms, B={TRAIN_B}, K={k}, T={t}, L={layers}, C=H=128, bf16 residuals, "
+          f"Bernoulli coins, CUDA events; library: cuDNN nn.LSTM forward and backward data over the peer "
+          f"rows, one cuBLAS bmm / matmul; {smi}): {json.dumps(out)}", flush=True)
+
+
 # --------------------------------------------------------------- main
 
 
@@ -895,7 +1215,7 @@ def main():
     print(smi, flush=True)
 
     # 2. build every kernel source, one nvcc each, started together
-    sources = ("fused_serve", "lstm_train", "lstm_ss")
+    sources = ("fused_serve", "lstm_train", "lstm_ss", "lstm_align")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         builds = dict(zip(sources, pool.map(_build.build, sources)))
     for name, b in builds.items():
@@ -916,13 +1236,13 @@ def main():
 
     # 5. seq2seq-tf-30 training
     tcfg = get_preset(PRESET, batch_size=TRAIN_B, steps=40, eval_every=10, ckpt_every=20, train_impl="fused")
-    trained, train_d, s2s_train = drive_training(tcfg, S2S_TRAIN, dev)
+    trained, train_d, s2s_train = drive_training(tcfg, S2S_TRAIN, dev, also=["fused_serve"])
     time_training(tcfg, trained, train_d, S2S_TRAIN, smi, plain_iters=5)
     time_lstm_kernels(dev, smi)
 
     # 6. stacked-ss-crossuser serving
     ccfg = get_preset(CU_PRESET)
-    cparams, cu_serve = drive_cu_serving(ccfg, dev, cli.bench_params_np(ccfg, 0), smi)
+    cparams, cu_serve = drive_cu_serving(ccfg, dev, cli.bench_params_np(ccfg, 0), CU_SERVE, 48, 1000)
     serve_bench(CU_PRESET, ((16384, 5), (65536, 3)), smi)
     profile_device(f"{CU_SERVE}: serve call at B=65536", serve_call(ccfg, cparams, dev, 65536), 2, smi)
     time_serve_kernel("fused_serve_ctx", dev, cparams, ccfg, 65536, 3, ccfg.model.ctx_dim, smi)
@@ -931,12 +1251,42 @@ def main():
 
     # 7. stacked-ss-crossuser training: teacher_prob anneals 1 → 0 over the run
     ctcfg = get_preset(CU_PRESET, batch_size=TRAIN_B, steps=30, eval_every=10, ckpt_every=15)
-    ctrained, ctrain_d, cu_train = drive_training(ctcfg, CU_TRAIN, dev)
+    # logged steps evaluate through the serving kernels; the encoder and the
+    # peer encoder train on lstm_seq_states
+    ctrained, ctrain_d, cu_train = drive_training(ctcfg, CU_TRAIN, dev, also=[
+        "fused_serve", "fused_encode", "lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw"])
     step = time_training(ctcfg, ctrained, ctrain_d, CU_TRAIN, smi, plain_iters=2)
     profile_device(f"{CU_TRAIN}: fast step", step, 5, smi)
     time_ss_kernels(dev, smi)
+    torch.cuda.empty_cache()
 
-    launches = {S2S_SERVE: s2s_serve, S2S_TRAIN: s2s_train, CU_SERVE: cu_serve, CU_TRAIN: cu_train}
+    # 8. stacked-ss-crossuser-10s serving: K = 7 time-aligned peers, 100 + 100 frames
+    c10cfg = get_preset(CU10_PRESET)
+    c10params, cu10_serve = drive_cu_serving(c10cfg, dev, cli.bench_params_np(c10cfg, 0), CU10_SERVE, 24, 200)
+    check_grouped(c10cfg, dev, c10params, rows=1000, n_videos=5)
+    serve_bench(CU10_PRESET, ((16384, 5), (65536, 3)), smi)
+    profile_device(f"{CU10_SERVE}: serve call at B=65536", serve_call(c10cfg, c10params, dev, 65536), 2, smi)
+    time_peer_serve(dev, c10params, c10cfg, 65536, 3, smi)
+    for batch, with_library in ((65536, False), (4096, True)):
+        time_peer_context(dev, c10params["peer_encoder"], batch, c10cfg.n_other_users, c10cfg.model.h_out, smi,
+                          with_library)
+    torch.cuda.empty_cache()
+
+    # 9. stacked-ss-crossuser-10s training through aligned_ss_decode; the
+    # evaluation serves through the lockstep tier, the encoder trains on
+    # lstm_seq_states (f32 residuals), dproj on ss_decode's kernel
+    c10tcfg = get_preset(CU10_PRESET, batch_size=TRAIN_B, steps=20, eval_every=10, ckpt_every=10)
+    c10trained, c10train_d, cu10_train = drive_training(c10tcfg, CU10_TRAIN, dev, also=[
+        "fused_serve_peers", "peer_context", "lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw",
+        "ss_decode_dproj"], step_tol=ALIGN_STEP_REL_TOL)
+    step = time_training(c10tcfg, c10trained, c10train_d, CU10_TRAIN, smi, plain_iters=1)
+    profile_device(f"{CU10_TRAIN}: fast step", step, 3, smi)
+    del step, c10trained
+    torch.cuda.empty_cache()
+    time_aligned_kernels(dev, smi)
+
+    launches = {S2S_SERVE: s2s_serve, S2S_TRAIN: s2s_train, CU_SERVE: cu_serve, CU_TRAIN: cu_train,
+                CU10_SERVE: cu10_serve, CU10_TRAIN: cu10_train}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
          "launches": launches[path][name], "max_abs_err": ERRS[name], **TIMES[name]}

@@ -32,8 +32,6 @@ _NOT_PORTED = {
     "data_parallel": "--data-parallel: ROADMAP.md, slice 'parallelism'",
     "seq_parallel": "--seq-parallel: ROADMAP.md, slice 'parallelism'",
     "pipeline_parallel": "--pipeline-parallel: ROADMAP.md, slice 'parallelism'",
-    "peer_align": "--peer-align: ROADMAP.md Queue 2, the cross_user lockstep-peer tier "
-                  "(preset stacked-ss-crossuser-10s)",
     "bf16": "--bf16: ROADMAP.md Queue 2, the lstm_seq_states bf16-compute tier",
     "tb_dir": "--tb-dir: ROADMAP.md, slice 'the TCP daemon and CLI'",
 }
@@ -79,14 +77,15 @@ def bench_params_np(cfg, seed: int) -> dict:
 
 def serve_bench(
     *, preset: str = "seq2seq-tf-30", batch: int, iters: int, impl: str,
-    device, seed: int = 0, peers: int = -1,
+    device, seed: int = 0, peers: int = -1, peer_align: bool = False,
 ) -> dict:
     """Time ``iters`` calls of the serve path (normalize → decode →
     denormalize → tile mask) on ``batch`` random viewers, after one warm-up
     call. Weights are :func:`bench_params_np`. A family that takes peers
     (cross_user) gets ``n_other_users`` random unit-vector peer futures per
     viewer (``peers`` >= 0 overrides the preset's K), as the JAX
-    ``serve-bench`` draws them. Turns TF32 off for the process
+    ``serve-bench`` draws them; ``peer_align`` sets the time-aligned peer
+    context (``--peer-align``). Turns TF32 off for the process
     (``exact_f32_matmul``)."""
     from . import infer
     from .config import get_preset
@@ -95,7 +94,8 @@ def serve_bench(
 
     device = _device(str(device))
     exact_f32_matmul()  # the plain impl in the f32 the kernel computes
-    cfg = get_preset(preset, **({"n_other_users": peers} if peers >= 0 else {}))
+    cfg = get_preset(preset, **({"n_other_users": peers} if peers >= 0 else {}),
+                     **({"model_peer_align": True} if peer_align else {}))
     params = params_from_numpy(bench_params_np(cfg, seed), device)
     rng = np.random.default_rng(seed)
     past = rng.normal(size=(batch, cfg.model.h_in, 3)).astype(np.float32)
@@ -190,9 +190,11 @@ def _build_parser() -> argparse.ArgumentParser:
 def _overrides(args, **over) -> dict:
     """The preset overrides every subcommand shares: ``--peers`` (>= 0)
     sets ``n_other_users``, a data and serving-schema knob that is not part
-    of the model hash. ``--peer-align`` raises: its tier is not ported."""
+    of the model hash; ``--peer-align`` sets ``model_peer_align`` (the
+    cross_user family's time-aligned peer context, part of the model hash),
+    as the JAX CLI does."""
     if getattr(args, "peer_align", False):
-        raise SystemExit(f"not ported yet: {_NOT_PORTED['peer_align']}")
+        over["model_peer_align"] = True
     if getattr(args, "peers", -1) >= 0:
         over["n_other_users"] = args.peers
     return over
@@ -273,10 +275,10 @@ def cmd_presets(_args):
 
 
 def cmd_serve_bench(args):
-    _overrides(args)
     print(json.dumps(serve_bench(
         preset=args.preset, batch=args.batch, iters=args.iters,
         impl=args.impl, device=args.device, seed=args.seed, peers=args.peers,
+        peer_align=args.peer_align,
     )))
 
 

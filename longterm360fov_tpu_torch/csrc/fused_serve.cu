@@ -3,8 +3,8 @@
 //
 // fused_serve_kernel replaces the TPU Pallas kernel
 //   longterm360fov_tpu/ops/fused_lstm.py::fused_serve / _serve_kernel
-// in its no-context and static-context f32 tiers. One launch runs the whole
-// request:
+// in its no-context, static-context and lockstep-peer f32 tiers. One launch
+// runs the whole request (the lockstep tier: two, see below):
 //   * the L-layer encoder over T_in steps, from zero state;
 //   * T_out autoregressive decoder steps. Decoder layer l starts from the
 //     encoder's final (h, c) of layer l; the layer-0 input is [y, ctx]: the
@@ -47,6 +47,24 @@
 //     buffer: ctx is loaded once, y rewritten every step. Between steps
 //     nothing goes to device memory except W reads, x_t in and y_t out. Rows
 //     are independent, so blocks share nothing.
+// The lockstep-peer tier (preset stacked-ss-crossuser-10s): at decoder step
+// t, K peer LSTM cells (hidden C, from zero state) advance one step on the
+// peers' known future windows, and ctx_t = Σ_k w_k · h_k,t is step t's
+// context. The TPU kernel kept all K peers' h and c beside the decoder in one
+// block. Here that is 2·K·C floats a viewer row on top of the decoder's
+// 2·L·H + D + C (7 KB on 2.5 KB at K = 7, C = H = 128), which would cut a
+// block to 16 rows and 64 threads. The peer chains never read the decoder,
+// so the tier is two launches instead:
+//   * peer_context_kernel runs the peer cells over the B·K peer rows, the
+//     fused_encode way (a block holds all K peers of RV viewers, so the
+//     masked mean is a block-local sum in a fixed order) and writes ctx_t
+//     (B, T_out, C) f32 for every step: 3.4 GB at B = 65536, about 2 ms of
+//     device-memory traffic written and read, against about 180 ms of FMA
+//     work in the call;
+//   * fused_serve_kernel<true> reloads ctx_t into the k-major [y, ctx]
+//     buffer at the start of every decoder step instead of once. The
+//     per-step load is a template parameter, so the static tier's instance
+//     keeps its registers.
 
 #include <cuda_runtime.h>
 
@@ -179,6 +197,12 @@ __device__ __forceinline__ void encode(const float* __restrict__ xs,
   }
 }
 
+// STEP_CTX = false: no context (C = 0) or a static context ctx (B, C),
+// written into the decoder's layer-0 buffer once. STEP_CTX = true: the
+// lockstep-peer tier's per-step context ctx (B, T_out, C), reloaded every
+// decoder step. A template parameter, so that the static tier's instance
+// keeps its registers.
+template <bool STEP_CTX>
 __global__ void __launch_bounds__(256)
     fused_serve_kernel(const float* __restrict__ past,
                        const float* __restrict__ ctx, float* __restrict__ out,
@@ -201,14 +225,24 @@ __global__ void __launch_bounds__(256)
   // the decoder starts from the encoder's final (h, c) of every layer, which
   // stay where they are, from the last observed position (x_s holds it) and,
   // in the static-context tier, from the row's context, written once
-  for (int i = tid; i < R * C; i += nthr) {
-    const int r = i / C, k = i % C;
-    const long long row = row0 + r;
-    x_s[(D + k) * R + r] = row < B ? ctx[row * C + k] : 0.0f;
+  if constexpr (!STEP_CTX) {
+    for (int i = tid; i < R * C; i += nthr) {
+      const int r = i / C, k = i % C;
+      const long long row = row0 + r;
+      x_s[(D + k) * R + r] = row < B ? ctx[row * C + k] : 0.0f;
+    }
+    __syncthreads();
   }
-  __syncthreads();
   const float* h_top = h_s + (L - 1) * HR;
   for (int t = 0; t < T_out; ++t) {
+    if constexpr (STEP_CTX) {  // this step's context; x_s was last read
+      for (int i = tid; i < R * C; i += nthr) {  // before the previous barrier
+        const int r = i / C, k = i % C;
+        const long long row = row0 + r;
+        x_s[(D + k) * R + r] = row < B ? ctx[((size_t)row * T_out + t) * C + k] : 0.0f;
+      }
+      __syncthreads();
+    }
     for (int l = 0; l < L; ++l)
       lstm_layer_step(l == 0 ? x_s : h_s + (l - 1) * HR, l == 0 ? D + C : H,
                       h_s + l * HR, c_s + l * HR, wts.w_dec[l], wts.b_dec[l],
@@ -226,6 +260,48 @@ __global__ void __launch_bounds__(256)
       if (row < B) out[(row * T_out + t) * D + d] = y;
     }
     __syncthreads();
+  }
+}
+
+// The lockstep peer encoders of the serve tier: one LSTM cell of hidden C
+// (wts.w_enc[0] (D + C, 4C), from zero state) over the B·K peer rows of pxs
+// (B·K, T, D), peer row p = b·K + k. A block holds all K peers of RV viewers
+// (R = RV·K rows, contiguous from b0·K), so after every step
+// ctx_t[b] = Σ_k pwt[b, k] · h_k,t (k = 0 .. K - 1 in order, from the f32 h)
+// is a block-local sum; it is written to ctx (B, T, C).
+__global__ void __launch_bounds__(256)
+    peer_context_kernel(const float* __restrict__ pxs,
+                        const float* __restrict__ pwt, float* __restrict__ ctx,
+                        const Weights wts, int B, int K, int T, int D, int C,
+                        int RV) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int R = RV * K, P = B * K;
+  const int j0 = (tid % (C / TJ)) * TJ;
+  const int r0 = (tid / (C / TJ)) * TR;
+  float* h_s = smem;         // (C, R)
+  float* c_s = h_s + C * R;  // (TR * TJ, nthr)
+  float* x_s = c_s + C * R;  // (D, R)
+  float* w_s = x_s + D * R;  // (R,) pwt of the block's peer rows
+  const long long b0 = (long long)blockIdx.x * RV, row0 = b0 * K;
+
+  for (int i = tid; i < 2 * C * R; i += nthr) h_s[i] = 0.0f;  // h_s, c_s
+  for (int r = tid; r < R; r += nthr) w_s[r] = row0 + r < P ? pwt[row0 + r] : 0.0f;
+  for (int t = 0; t < T; ++t) {
+    load_step(x_s, pxs, row0, P, T, t, D, R, tid, nthr);
+    __syncthreads();
+    lstm_layer_step(x_s, D, h_s, c_s, wts.w_enc[0], wts.b_enc[0], C, R, r0, j0,
+                    tid, nthr);
+    // the next step rewrites h only after its first barrier
+    for (int i = tid; i < RV * C; i += nthr) {
+      const int v = i / C, c = i % C;
+      const long long b = b0 + v;
+      if (b >= B) continue;
+      float s = 0.0f;
+      for (int k = 0; k < K; ++k) s += h_s[c * R + v * K + k] * w_s[v * K + k];
+      ctx[((size_t)b * T + t) * C + c] = s;
+    }
   }
 }
 
@@ -271,17 +347,19 @@ extern "C" {
 // the block has (rows / TR) * (hidden / TJ) threads.
 
 // (2 * layers * hidden + d + ctx_dim) * rows floats of dynamic shared
-// memory. ctx (batch, ctx_dim) is null when ctx_dim == 0; the decoder's
-// layer-0 W is then (d + hidden, 4 * hidden), else (d + ctx_dim + hidden,
-// 4 * hidden).
+// memory. ctx is null when ctx_dim == 0; the decoder's layer-0 W is then
+// (d + hidden, 4 * hidden), else (d + ctx_dim + hidden, 4 * hidden). ctx is
+// (batch, ctx_dim), or, with step_ctx, (batch, t_out, ctx_dim): the
+// lockstep-peer tier's per-step context.
 int fused_serve_f32(const void* past, const void* ctx, void* out,
                     const void* const* w_enc, const void* const* b_enc,
                     const void* const* w_dec, const void* const* b_dec,
                     const void* proj_w, const void* proj_b, int batch,
                     int t_in, int t_out, int d, int ctx_dim, int hidden,
-                    int layers, int rows, void* stream) {
+                    int layers, int rows, int step_ctx, void* stream) {
   if (bad_shape(batch, t_in, d, hidden, layers, rows) || t_out < 1 ||
-      ctx_dim < 0 || (ctx_dim > 0) != (ctx != nullptr))
+      ctx_dim < 0 || (ctx_dim > 0) != (ctx != nullptr) ||
+      (step_ctx && ctx_dim == 0))
     return (int)cudaErrorInvalidValue;
   Weights w;
   for (int l = 0; l < MAX_LAYERS; ++l) {
@@ -295,16 +373,45 @@ int fused_serve_f32(const void* past, const void* ctx, void* out,
   w.proj_b = static_cast<const float*>(proj_b);
   const size_t smem =
       ((size_t)2 * layers * hidden + d + ctx_dim) * rows * sizeof(float);
+  auto kernel = step_ctx ? fused_serve_kernel<true> : fused_serve_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_serve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = (rows / TR) * (hidden / TJ);
   const int grid = (batch + rows - 1) / rows;
-  fused_serve_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(past), static_cast<const float*>(ctx),
       static_cast<float*>(out), w, batch, t_in, t_out, d, ctx_dim, hidden,
       layers, rows);
+  return (int)cudaGetLastError();
+}
+
+// The peer context of the lockstep tier: pxs (batch·n_peers, t_len, d), pwt
+// (batch, n_peers), w (d + ctx_dim, 4·ctx_dim), b (4·ctx_dim,) → ctx (batch,
+// t_len, ctx_dim). rows_v viewers a block: rows_v·n_peers rows (a multiple of
+// 8), (rows_v·n_peers / 8)·(ctx_dim / 4) threads and (2·ctx_dim + d + 1)·
+// rows_v·n_peers floats of dynamic shared memory.
+int peer_context_f32(const void* pxs, const void* pwt, void* ctx,
+                     const void* w, const void* b, int batch, int n_peers,
+                     int t_len, int d, int ctx_dim, int rows_v, void* stream) {
+  const int rows = rows_v * n_peers;
+  if (n_peers < 1 || rows_v < 1 ||
+      bad_shape(batch * n_peers, t_len, d, ctx_dim, 1, rows) ||
+      (long long)batch * n_peers * t_len >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  Weights wts = {};
+  wts.w_enc[0] = static_cast<const float*>(w);
+  wts.b_enc[0] = static_cast<const float*>(b);
+  const size_t smem = ((size_t)2 * ctx_dim + d + 1) * rows * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      peer_context_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = (rows / TR) * (ctx_dim / TJ);
+  const int grid = (batch + rows_v - 1) / rows_v;
+  peer_context_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pxs), static_cast<const float*>(pwt),
+      static_cast<float*>(ctx), wts, batch, n_peers, t_len, d, ctx_dim, rows_v);
   return (int)cudaGetLastError();
 }
 

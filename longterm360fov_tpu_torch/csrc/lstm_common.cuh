@@ -163,8 +163,9 @@ __device__ __forceinline__ void load_states(float* h_s, float* c_s,
 // One forward layer-step for the block's R rows: gates = [in, h] @ W + b, the
 // cell update, and the residual stores. in: (k_in, R) layer input; h: (H, R)
 // this layer's hidden state, read and then overwritten; c: this layer's cell
-// state, owner-private [TR * TJ][nthr].
-template <typename RT>
+// state, owner-private [TR * TJ][nthr]. GATES = false stores h and c only
+// (the lockstep peer encoder, whose backward recomputes its gates).
+template <typename RT, bool GATES = true>
 __device__ __forceinline__ void fwd_layer_step(
     const float* in, int k_in, float* h, float* c, const float* __restrict__ W,
     const float* __restrict__ bias, RT* hs, RT* cs, RT* gs, long long row0,
@@ -196,8 +197,10 @@ __device__ __forceinline__ void fwd_layer_step(
     const long long row = row0 + r0 + r;
     if (row < B) {
       const size_t q = (size_t)row * T + t;
+      if constexpr (GATES) {
 #pragma unroll
-      for (int g = 0; g < 4; ++g) Res<RT>::st4(gs + q * 4 * H + g * H + j0, gv[g]);
+        for (int g = 0; g < 4; ++g) Res<RT>::st4(gs + q * 4 * H + g * H + j0, gv[g]);
+      }
       Res<RT>::st4(cs + q * H + j0, cv);
       Res<RT>::st4(hs + q * H + j0, hv[r]);
     }
@@ -306,13 +309,35 @@ struct DwArgs {
   const float* y0;       // (B, D)
   const float* ctx;      // (B, C); null when C == 0
   int C;
+  // layer 0 of the lockstep-peer decoder (php != null): ctx_t is rebuilt as
+  // Σ_k pwt[b, k] · php[b·K + k, t], k = 0 .. K - 1 in order, from the peer
+  // encoder's residual h, as the TPU backward rebuilds it
+  const void* php;    // (B·K, T, C) residual type
+  const float* pwt;   // (B, K) mask weights
+  int K;
 };
+
+// the reduction's z loaders: the teacher-forced LSTM, and layer 0 of the
+// scheduled-sampling decoder with a static or a lockstep-peer context
+enum DwMode { DW_TF = 0, DW_SS = 1, DW_ALIGN = 2 };
 
 // feature m < D + C of the scheduled-sampling decoder's layer-0 input
 // [x_t, ctx] at row q = b * T + t
+template <typename RT, int MODE>
 __device__ __forceinline__ float ss_in(const DwArgs& a, int q, int b, int t,
-                                       int m, int B, int D) {
-  if (m >= D) return a.ctx[(size_t)b * a.C + (m - D)];
+                                       int m, int B, int T, int D) {
+  if (m >= D) {
+    if constexpr (MODE == DW_ALIGN) {
+      const RT* h = static_cast<const RT*>(a.php) +
+                    ((size_t)b * a.K * T + t) * a.C + (m - D);
+      float s = 0.0f;
+      for (int k = 0; k < a.K; ++k)
+        s += Res<RT>::ld(h + (size_t)k * T * a.C) * a.pwt[(size_t)b * a.K + k];
+      return s;
+    } else {
+      return a.ctx[(size_t)b * a.C + (m - D)];
+    }
+  }
   if (a.coins[(size_t)t * B + b] > 0.0f)
     return a.teacher[((size_t)t * B + b) * D + m];
   return t > 0 ? a.ys[(size_t)(q - 1) * D + m] : a.y0[(size_t)b * D + m];
@@ -324,10 +349,10 @@ __device__ __forceinline__ float ss_in(const DwArgs& a, int q, int b, int t,
 // product is db. Output row of feature f: f < H ? in + f : f - H (db is
 // row in + H, after dW).
 //
-// z[q][f .. f + 3] of row q = b * T + t (zero past the features). SS: layer
-// 0 of the scheduled-sampling decoder; a template parameter, so that the
-// teacher-forced kernel keeps its short loader and its registers.
-template <typename RT, bool SS>
+// z[q][f .. f + 3] of row q = b * T + t (zero past the features). MODE (a
+// DwMode) is a template parameter, so that the teacher-forced kernel keeps
+// its short loader and its registers.
+template <typename RT, int MODE>
 __device__ __forceinline__ void z_quad(const DwArgs& a, int q, int f, int B,
                                        int T, int D, int H, int in,
                                        float (&v)[4]) {
@@ -347,12 +372,12 @@ __device__ __forceinline__ void z_quad(const DwArgs& a, int q, int f, int B,
     Res<RT>::ld4(static_cast<const RT*>(a.cs_in) + (size_t)q * H + m, c);
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[i] = o[i] * tanhf(c[i]);
-  } else if (SS) {  // [x_t, ctx]
+  } else if (MODE != DW_TF) {  // [x_t, ctx]
     const int b = q / T, t = q - b * T;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = f - H + i;
-      v[i] = m < in ? ss_in(a, q, b, t, m, B, D) : (m == in ? 1.0f : 0.0f);
+      v[i] = m < in ? ss_in<RT, MODE>(a, q, b, t, m, B, T, D) : (m == in ? 1.0f : 0.0f);
     }
   } else {  // xs, D floats a row
 #pragma unroll
@@ -368,7 +393,7 @@ __device__ __forceinline__ void z_quad(const DwArgs& a, int q, int f, int B,
 // Block (n tile, f tile, slice s): partial[s][row(f)][n] = sum over the
 // slice's rows q of z[q][f] * dg[q][n], for the M + 1 features of z and the
 // constant (M = in + H).
-template <typename RT, bool SS>
+template <typename RT, int MODE>
 __global__ void __launch_bounds__(256, 2)
     lstm_dw_partial_kernel(const DwArgs a, float* __restrict__ partial, int B,
                            int T, int D, int H, int in, int chunk) {
@@ -396,7 +421,7 @@ __global__ void __launch_bounds__(256, 2)
     za[i][0] = za[i][1] = za[i][2] = za[i][3] = 0.0f;                          \
     ga[i][0] = ga[i][1] = ga[i][2] = ga[i][3] = 0.0f;                          \
     if (q < q_end) {                                                           \
-      if (f0 + c <= M) z_quad<RT, SS>(a, q, f0 + c, B, T, D, H, in, za[i]);    \
+      if (f0 + c <= M) z_quad<RT, MODE>(a, q, f0 + c, B, T, D, H, in, za[i]);  \
       F::ld4(a.dg + (size_t)q * N + n0 + c, ga[i]);                            \
     }                                                                          \
   }
@@ -477,17 +502,429 @@ static inline cudaError_t dw_layer(const DwArgs& a, float* partial, float* dw,
   int chunk = (Q + splits - 1) / splits;
   chunk = (chunk + DW_K - 1) / DW_K * DW_K;
   const dim3 grid(N / DW_T, (M + 1 + DW_T - 1) / DW_T, splits);
-#define DW_PARTIAL(RT, SS) \
-  lstm_dw_partial_kernel<RT, SS><<<grid, 256, 0, st>>>(a, partial, batch, t_len, d, hidden, in, chunk)
-  const bool ss = a.coins != nullptr;
+#define DW_PARTIAL(RT, MODE) \
+  lstm_dw_partial_kernel<RT, MODE><<<grid, 256, 0, st>>>(a, partial, batch, t_len, d, hidden, in, chunk)
+#define DW_PARTIAL_RT(RT)                                         \
+  if (a.php != nullptr) DW_PARTIAL(RT, DW_ALIGN);                 \
+  else if (a.coins != nullptr) DW_PARTIAL(RT, DW_SS);             \
+  else DW_PARTIAL(RT, DW_TF);
   if (bf16) {
-    if (ss) DW_PARTIAL(__nv_bfloat16, true); else DW_PARTIAL(__nv_bfloat16, false);
+    DW_PARTIAL_RT(__nv_bfloat16)
   } else {
-    if (ss) DW_PARTIAL(float, true); else DW_PARTIAL(float, false);
+    DW_PARTIAL_RT(float)
   }
+#undef DW_PARTIAL_RT
 #undef DW_PARTIAL
   const int total = (M + 1) * N;
   lstm_dw_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(partial, splits,
                                                           M * N, N, dw, db);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the scheduled-sampling decoder's recurrences (lstm_ss.cu's header says what
+// they compute). STEP_CTX = false: a static context ctx (B, C), written into
+// layer 0's input once, and dctx (B, C) summed over t (lstm_ss.cu);
+// STEP_CTX = true: a per-step context ctx (B, T, C), reloaded every step, and
+// dctx (B, T, C) written per step (the lockstep-peer decoder of
+// lstm_align.cu). A template parameter, so that each instance keeps the
+// registers of its own branch.
+// ---------------------------------------------------------------------------
+
+struct SsFwdArgs {
+  const float* w[MAX_LAYERS];  // (in_l + H, 4H); layer 0's input is D + C
+  const float* b[MAX_LAYERS];  // (4H,)
+  void* hs[MAX_LAYERS];        // (B, T, H) residual type
+  void* cs[MAX_LAYERS];        // (B, T, H)
+  void* gs[MAX_LAYERS];        // (B, T, 4H)
+  const float* proj_w;         // (H, D)
+  const float* proj_b;         // (D,)
+};
+
+template <typename RT, bool STEP_CTX>
+__global__ void __launch_bounds__(256)
+    ss_fwd_kernel(const float* __restrict__ h0, const float* __restrict__ c0,
+                  const float* __restrict__ y0,
+                  const float* __restrict__ teacher,
+                  const float* __restrict__ coins,
+                  const float* __restrict__ ctx, const SsFwdArgs a,
+                  float* __restrict__ ys, int B, int T, int D, int C, int H,
+                  int L, int R) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int j0 = (tid % (H / TJ)) * TJ;
+  const int r0 = (tid / (H / TJ)) * TR;
+  const int HR = H * R;
+  float* h_s = smem;               // L x (H, R)
+  float* c_s = h_s + L * HR;       // L x owner-private (TR * TJ, nthr)
+  float* x_s = c_s + L * HR;       // (D + C, R) layer-0 input [x_t, ctx]
+  float* y_s = x_s + (D + C) * R;  // (D, R) the fed-back y_{t-1}, f32
+  const long long row0 = (long long)blockIdx.x * R;
+
+  load_states(h_s, c_s, h0, c0, row0, B, H, L, R, r0, j0, tid, nthr);
+  for (int i = tid; i < R * D; i += nthr) {
+    const int r = i / D, d = i % D;
+    const long long row = row0 + r;
+    y_s[d * R + r] = row < B ? y0[row * D + d] : 0.0f;
+  }
+  if constexpr (!STEP_CTX) {
+    for (int i = tid; i < R * C; i += nthr) {  // the static context, once
+      const int r = i / C, c = i % C;
+      const long long row = row0 + r;
+      x_s[(D + c) * R + r] = row < B ? ctx[row * C + c] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  const float* h_top = h_s + (L - 1) * HR;
+  for (int t = 0; t < T; ++t) {
+    // x_t = coin_t > 0 ? teacher_t : y_{t-1}
+    for (int i = tid; i < R * D; i += nthr) {
+      const int r = i / D, d = i % D;
+      const long long row = row0 + r;
+      float x = 0.0f;
+      if (row < B) {
+        const size_t q = (size_t)t * B + row;
+        x = coins[q] > 0.0f ? teacher[q * D + d] : y_s[d * R + r];
+      }
+      x_s[d * R + r] = x;
+    }
+    if constexpr (STEP_CTX) {  // this step's context
+      for (int i = tid; i < R * C; i += nthr) {
+        const int r = i / C, c = i % C;
+        const long long row = row0 + r;
+        x_s[(D + c) * R + r] = row < B ? ctx[((size_t)row * T + t) * C + c] : 0.0f;
+      }
+    }
+    __syncthreads();
+    for (int l = 0; l < L; ++l)
+      fwd_layer_step<RT>(
+          l == 0 ? x_s : h_s + (l - 1) * HR, l == 0 ? D + C : H, h_s + l * HR,
+          c_s + l * HR, a.w[l], a.b[l], static_cast<RT*>(a.hs[l]),
+          static_cast<RT*>(a.cs[l]), static_cast<RT*>(a.gs[l]), row0, B, T, t,
+          H, R, r0, j0, tid, nthr);
+    // y_t = h_top @ proj_w + proj_b from the f32 h: written out and fed back
+    for (int i = tid; i < R * D; i += nthr) {
+      const int r = i / D, d = i % D;
+      float y = 0.0f;
+      for (int k = 0; k < H; ++k)
+        y = fmaf(h_top[k * R + r], __ldg(a.proj_w + k * D + d), y);
+      y += __ldg(a.proj_b + d);
+      y_s[d * R + r] = y;
+      const long long row = row0 + r;
+      if (row < B) ys[((size_t)row * T + t) * D + d] = y;
+    }
+    __syncthreads();
+  }
+}
+
+struct SsBwdArgs {
+  const float* w0;              // layer 0's W (D + C + H, 4H): rows :D give dx
+  const float* wt[MAX_LAYERS];  // l == 0: W[D+C:]ᵀ (4H, H); l > 0:
+                                // [W[H:]; W[:H]]ᵀ (4H, 2H), dh part first
+  const float* wtc;             // layer 0's W[D:D+C]ᵀ (4H, C); null if C == 0
+  const void* cs[MAX_LAYERS];   // (B, T, H) residual type
+  const void* gs[MAX_LAYERS];   // (B, T, 4H)
+  float* dg[MAX_LAYERS];        // (B, T, 4H) dgates out
+  const float* proj_w;          // (H, D)
+};
+
+template <typename RT, bool STEP_CTX>
+__global__ void __launch_bounds__(256)
+    ss_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ c0,
+                  const float* __restrict__ coins, const SsBwdArgs a,
+                  float* __restrict__ dy, float* __restrict__ dteacher,
+                  float* __restrict__ dy0, float* __restrict__ dh0,
+                  float* __restrict__ dc0, float* __restrict__ dctx, int B,
+                  int T, int D, int C, int H, int L, int R) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int j0 = (tid % (H / TJ)) * TJ;
+  const int r0 = (tid / (H / TJ)) * TR;
+  const int HR = H * R, G = 4 * H;
+  float* dg_s = smem;             // (4H, R) dgates of this layer-step
+  float* dh_s = dg_s + G * R;     // L x owner-private (TR * TJ, nthr)
+  float* dc_s = dh_s + L * HR;    // L x owner-private
+  float* dctx_s = dc_s + L * HR;  // (C, R) dctx, each entry summed by its owner
+  float* fb_s = dctx_s + C * R;   // (D, R) feedback gradient of y_{t-1}
+  float* dy_s = fb_s + D * R;     // (D, R) total gradient of y_t
+  const long long row0 = (long long)blockIdx.x * R;
+
+  // the decoder's final states get no gradient: the carries start at 0
+  for (int i = tid; i < (2 * L * H + C + D) * R; i += nthr) dh_s[i] = 0.0f;
+  __syncthreads();
+
+  for (int t = T - 1; t >= 0; --t) {
+    // dy_t = dys_t + the feedback from step t + 1
+    for (int i = tid; i < R * D; i += nthr) {
+      const int r = i / D, d = i % D;
+      const long long row = row0 + r;
+      float v = 0.0f;
+      if (row < B) {
+        const size_t q = ((size_t)row * T + t) * D + d;
+        v = dys[q] + fb_s[d * R + r];
+        dy[q] = v;
+      }
+      dy_s[d * R + r] = v;
+    }
+    __syncthreads();
+    float above[TR][TJ];  // dy_t · proj_wᵀ, the gradient at the top layer's h
+#pragma unroll
+    for (int r = 0; r < TR; ++r)
+#pragma unroll
+      for (int j = 0; j < TJ; ++j) {
+        float s = 0.0f;
+        for (int d = 0; d < D; ++d)
+          s = fmaf(dy_s[d * R + r0 + r], __ldg(a.proj_w + (size_t)(j0 + j) * D + d), s);
+        above[r][j] = s;
+      }
+    for (int l = L - 1; l >= 0; --l) {
+      bwd_cell_step<RT>(static_cast<const RT*>(a.gs[l]),
+                        static_cast<const RT*>(a.cs[l]), c0, a.dg[l], above,
+                        dh_s + l * HR, dc_s + l * HR, dg_s, row0, B, T, t, l,
+                        H, R, r0, j0, tid, nthr);
+      __syncthreads();  // dgates of this layer-step complete in dg_s
+
+      if (l > 0) {
+        float acc[2][TR][TJ];
+        zero(acc);
+        accumulate<2>(acc, dg_s, G, a.wt[l], 2 * H, H, R, r0, j0);
+#pragma unroll
+        for (int r = 0; r < TR; ++r)
+#pragma unroll
+          for (int j = 0; j < TJ; ++j) {
+            dh_s[l * HR + (r * TJ + j) * nthr + tid] = acc[0][r][j];
+            above[r][j] = acc[1][r][j];
+          }
+      } else {
+        float acc[1][TR][TJ];
+        zero(acc);
+        accumulate<1>(acc, dg_s, G, a.wt[0], H, 0, R, r0, j0);
+#pragma unroll
+        for (int r = 0; r < TR; ++r)
+#pragma unroll
+          for (int j = 0; j < TJ; ++j)
+            dh_s[(r * TJ + j) * nthr + tid] = acc[0][r][j];
+        // dctx = dgates · W[D:D+C]ᵀ: the thread owns units c .. c + 3;
+        // summed over t (static) or written for this step (per-step)
+        for (int c = j0; c < C; c += H) {
+          float cacc[1][TR][TJ];
+          zero(cacc);
+          accumulate<1>(cacc, dg_s, G, a.wtc, C, 0, R, r0, c);
+          if constexpr (STEP_CTX) {
+#pragma unroll
+            for (int r = 0; r < TR; ++r) {
+              const long long row = row0 + r0 + r;
+              if (row < B) F::st4(dctx + ((size_t)row * T + t) * C + c, cacc[0][r]);
+            }
+          } else {
+#pragma unroll
+            for (int r = 0; r < TR; ++r)
+#pragma unroll
+              for (int j = 0; j < TJ; ++j) dctx_s[(c + j) * R + r0 + r] += cacc[0][r][j];
+          }
+        }
+        // dx = dgates · W[:D]ᵀ → dteacher_t, and the feedback to y_{t-1}
+        input_grad(dg_s, a.w0, D, G, R, row0, B, tid, nthr,
+                   [&](int r, int d, float dx) {
+                     const size_t q = (size_t)t * B + row0 + r;
+                     const float coin = coins[q];
+                     dteacher[q * D + d] = dx * coin;
+                     fb_s[d * R + r] = dx * (1.0f - coin);
+                   });
+      }
+      __syncthreads();  // dg_s is read by everyone before it is overwritten
+    }
+  }
+
+  for (int i = tid; i < R * D; i += nthr) {
+    const int r = i / D, d = i % D;
+    const long long row = row0 + r;
+    if (row < B) dy0[row * D + d] = fb_s[d * R + r];
+  }
+  if constexpr (!STEP_CTX) {
+    for (int i = tid; i < R * C; i += nthr) {
+      const int r = i / C, c = i % C;
+      const long long row = row0 + r;
+      if (row < B) dctx[row * C + c] = dctx_s[c * R + r];
+    }
+  }
+  for (int l = 0; l < L; ++l)
+#pragma unroll
+    for (int r = 0; r < TR; ++r) {
+      const long long row = row0 + r0 + r;
+      if (row >= B) continue;
+      float vh[TJ], vc[TJ];
+#pragma unroll
+      for (int j = 0; j < TJ; ++j) {
+        vh[j] = dh_s[l * HR + (r * TJ + j) * nthr + tid];
+        vc[j] = dc_s[l * HR + (r * TJ + j) * nthr + tid];
+      }
+      F::st4(dh0 + ((size_t)l * B + row) * H + j0, vh);
+      F::st4(dc0 + ((size_t)l * B + row) * H + j0, vc);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// launches shared by the C interfaces of lstm_ss.cu and lstm_align.cu; each
+// returns cudaGetLastError() (0 = ok)
+// ---------------------------------------------------------------------------
+
+static inline bool ss_bad_shape(int batch, int t_len, int d, int ctx_dim, int hidden,
+                         int layers, int rows) {
+  return layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
+         rows < TR || rows % TR || batch < 1 || t_len < 1 || d < 1 ||
+         ctx_dim < 0 || ctx_dim % 4 || (rows / TR) * (hidden / TJ) > 256;
+}
+
+// Launch `kernel` with `smem` bytes of dynamic shared memory (above 48 KB
+// only after the attribute is raised) → cudaGetLastError().
+template <typename Kernel, typename... Args>
+static int launch_with_smem(Kernel kernel, int grid, int threads, size_t smem,
+                            cudaStream_t st, Args... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, threads, smem, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// rows: batch rows per block, a multiple of 4. The block has (rows / 4) *
+// (hidden / 4) threads and (2 * layers * hidden + 2 * d + ctx_dim) * rows
+// floats of dynamic shared memory. coins (t_len, batch), teacher (t_len,
+// batch, d); ctx (batch, ctx_dim) or, STEP_CTX, (batch, t_len, ctx_dim); null
+// when ctx_dim == 0.
+template <bool STEP_CTX>
+static int ss_fwd_launch(const void* h0, const void* c0, const void* y0,
+                         const void* teacher, const void* coins,
+                         const void* ctx, const void* const* w,
+                         const void* const* b, const void* proj_w,
+                         const void* proj_b, void* const* hs, void* const* cs,
+                         void* const* gs, void* ys, int batch, int t_len,
+                         int d, int ctx_dim, int hidden, int layers, int rows,
+                         int bf16, void* stream) {
+  if (ss_bad_shape(batch, t_len, d, ctx_dim, hidden, layers, rows))
+    return (int)cudaErrorInvalidValue;
+  SsFwdArgs a;
+  for (int l = 0; l < MAX_LAYERS; ++l) {
+    const bool on = l < layers;
+    a.w[l] = on ? static_cast<const float*>(w[l]) : nullptr;
+    a.b[l] = on ? static_cast<const float*>(b[l]) : nullptr;
+    a.hs[l] = on ? hs[l] : nullptr;
+    a.cs[l] = on ? cs[l] : nullptr;
+    a.gs[l] = on ? gs[l] : nullptr;
+  }
+  a.proj_w = static_cast<const float*>(proj_w);
+  a.proj_b = static_cast<const float*>(proj_b);
+  const size_t smem =
+      ((size_t)2 * layers * hidden + 2 * d + ctx_dim) * rows * sizeof(float);
+  const int threads = (rows / TR) * (hidden / TJ);
+  const int grid = (batch + rows - 1) / rows;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float *hh = static_cast<const float*>(h0), *cc = static_cast<const float*>(c0),
+              *yy = static_cast<const float*>(y0),
+              *te = static_cast<const float*>(teacher),
+              *co = static_cast<const float*>(coins),
+              *cx = static_cast<const float*>(ctx);
+  float* out = static_cast<float*>(ys);
+  if (bf16)
+    return launch_with_smem(ss_fwd_kernel<__nv_bfloat16, STEP_CTX>, grid,
+                            threads, smem, st, hh, cc, yy, te, co, cx, a, out,
+                            batch, t_len, d, ctx_dim, hidden, layers, rows);
+  return launch_with_smem(ss_fwd_kernel<float, STEP_CTX>, grid, threads, smem,
+                          st, hh, cc, yy, te, co, cx, a, out, batch, t_len, d,
+                          ctx_dim, hidden, layers, rows);
+}
+
+// Same block shape as ss_fwd_launch, with (4 * hidden + 2 * layers * hidden
+// + ctx_dim + 2 * d) * rows floats of dynamic shared memory. w0 is layer 0's
+// W; wt its transposed blocks (see SsBwdArgs); wtc null when ctx_dim == 0.
+// dctx is (batch, ctx_dim) or, STEP_CTX, (batch, t_len, ctx_dim).
+template <bool STEP_CTX>
+static int ss_bwd_launch(const void* dys, const void* c0, const void* coins,
+                         const void* w0, const void* const* wt, const void* wtc,
+                         const void* proj_w, const void* const* cs,
+                         const void* const* gs, void* const* dg, void* dy,
+                         void* dteacher, void* dy0, void* dh0, void* dc0,
+                         void* dctx, int batch, int t_len, int d, int ctx_dim,
+                         int hidden, int layers, int rows, int bf16,
+                         void* stream) {
+  if (ss_bad_shape(batch, t_len, d, ctx_dim, hidden, layers, rows))
+    return (int)cudaErrorInvalidValue;
+  SsBwdArgs a;
+  a.w0 = static_cast<const float*>(w0);
+  a.wtc = static_cast<const float*>(wtc);
+  a.proj_w = static_cast<const float*>(proj_w);
+  for (int l = 0; l < MAX_LAYERS; ++l) {
+    const bool on = l < layers;
+    a.wt[l] = on ? static_cast<const float*>(wt[l]) : nullptr;
+    a.cs[l] = on ? cs[l] : nullptr;
+    a.gs[l] = on ? gs[l] : nullptr;
+    a.dg[l] = on ? static_cast<float*>(dg[l]) : nullptr;
+  }
+  const size_t smem = ((size_t)4 * hidden + (size_t)2 * layers * hidden +
+                       ctx_dim + 2 * d) * rows * sizeof(float);
+  const int threads = (rows / TR) * (hidden / TJ);
+  const int grid = (batch + rows - 1) / rows;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float *up = static_cast<const float*>(dys), *cc = static_cast<const float*>(c0),
+              *co = static_cast<const float*>(coins);
+  float *o_dy = static_cast<float*>(dy), *o_dt = static_cast<float*>(dteacher),
+        *o_dy0 = static_cast<float*>(dy0), *o_dh = static_cast<float*>(dh0),
+        *o_dc = static_cast<float*>(dc0), *o_dx = static_cast<float*>(dctx);
+  if (bf16)
+    return launch_with_smem(ss_bwd_kernel<__nv_bfloat16, STEP_CTX>, grid,
+                            threads, smem, st, up, cc, co, a, o_dy, o_dt, o_dy0,
+                            o_dh, o_dc, o_dx, batch, t_len, d, ctx_dim, hidden,
+                            layers, rows);
+  return launch_with_smem(ss_bwd_kernel<float, STEP_CTX>, grid, threads, smem,
+                          st, up, cc, co, a, o_dy, o_dt, o_dy0, o_dh, o_dc,
+                          o_dx, batch, t_len, d, ctx_dim, hidden, layers, rows);
+}
+
+// dW/db of every decoder layer (the reduction above; layer 0's input rebuilt
+// from coins, teacher, ys, y0 and a static ctx, or, with php != null, the
+// per-step context from php and pwt). `partial` holds splits x
+// (max_l(in_l + H) + 1) x 4H floats, reused layer after layer.
+static inline int ss_dw_layers(const void* h0, const void* y0, const void* teacher,
+                        const void* coins, const void* ctx, const void* php,
+                        const void* pwt, int n_peers, const void* ys,
+                        const void* const* hs, const void* const* cs,
+                        const void* const* gs, const void* const* dg,
+                        void* partial, void* const* dw, void* const* db,
+                        int batch, int t_len, int d, int ctx_dim, int hidden,
+                        int layers, int splits, int bf16, void* stream) {
+  if (layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
+      batch < 1 || t_len < 1 || d < 1 || ctx_dim < 0 || splits < 1 ||
+      (long long)batch * t_len >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int l = 0; l < layers; ++l) {
+    DwArgs a = {};
+    a.h0 = static_cast<const float*>(h0) + (size_t)l * batch * hidden;
+    a.hs = hs[l];
+    a.dg = static_cast<const float*>(dg[l]);
+    if (l > 0) {
+      a.cs_in = cs[l - 1];
+      a.gs_in = gs[l - 1];
+    } else {
+      a.coins = static_cast<const float*>(coins);
+      a.teacher = static_cast<const float*>(teacher);
+      a.ys = static_cast<const float*>(ys);
+      a.y0 = static_cast<const float*>(y0);
+      a.ctx = static_cast<const float*>(ctx);
+      a.C = ctx_dim;
+      a.php = php;
+      a.pwt = static_cast<const float*>(pwt);
+      a.K = n_peers;
+    }
+    const cudaError_t e = dw_layer(
+        a, static_cast<float*>(partial), static_cast<float*>(dw[l]),
+        static_cast<float*>(db[l]), batch, t_len, d, hidden,
+        l == 0 ? d + ctx_dim : hidden, splits, bf16 != 0, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }

@@ -3,7 +3,10 @@
 //
 // Replaces the TPU Pallas kernels of
 //   longterm360fov_tpu/ops/lstm_ss.py::ss_decode
-// (_fwd_kernel and _bwd_kernel under a jax.custom_vjp) with four kernels:
+// (_fwd_kernel and _bwd_kernel under a jax.custom_vjp) with four kernels.
+// The two recurrences live in lstm_common.cuh, whose per-step-context
+// instances lstm_align.cu launches; this file launches the static-context
+// ones (STEP_CTX = false):
 //   * ss_fwd_kernel: T decoder steps from (h0, c0) (L, B, H) and y0 (B, D).
 //     Step t feeds layer 0 [x_t, ctx] with x_t = coin_t > 0 ? teacher_t :
 //     y_{t-1} (y_{-1} = y0), runs L stacked cells and projects
@@ -49,230 +52,6 @@
 // feedback and projection are D = 3 wide and ride in the same block.
 
 #include "lstm_common.cuh"
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-struct SsFwdArgs {
-  const float* w[MAX_LAYERS];  // (in_l + H, 4H); layer 0's input is D + C
-  const float* b[MAX_LAYERS];  // (4H,)
-  void* hs[MAX_LAYERS];        // (B, T, H) residual type
-  void* cs[MAX_LAYERS];        // (B, T, H)
-  void* gs[MAX_LAYERS];        // (B, T, 4H)
-  const float* proj_w;         // (H, D)
-  const float* proj_b;         // (D,)
-};
-
-template <typename RT>
-__global__ void __launch_bounds__(256)
-    ss_fwd_kernel(const float* __restrict__ h0, const float* __restrict__ c0,
-                  const float* __restrict__ y0,
-                  const float* __restrict__ teacher,
-                  const float* __restrict__ coins,
-                  const float* __restrict__ ctx, const SsFwdArgs a,
-                  float* __restrict__ ys, int B, int T, int D, int C, int H,
-                  int L, int R) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int j0 = (tid % (H / TJ)) * TJ;
-  const int r0 = (tid / (H / TJ)) * TR;
-  const int HR = H * R;
-  float* h_s = smem;               // L x (H, R)
-  float* c_s = h_s + L * HR;       // L x owner-private (TR * TJ, nthr)
-  float* x_s = c_s + L * HR;       // (D + C, R) layer-0 input [x_t, ctx]
-  float* y_s = x_s + (D + C) * R;  // (D, R) the fed-back y_{t-1}, f32
-  const long long row0 = (long long)blockIdx.x * R;
-
-  load_states(h_s, c_s, h0, c0, row0, B, H, L, R, r0, j0, tid, nthr);
-  for (int i = tid; i < R * D; i += nthr) {
-    const int r = i / D, d = i % D;
-    const long long row = row0 + r;
-    y_s[d * R + r] = row < B ? y0[row * D + d] : 0.0f;
-  }
-  for (int i = tid; i < R * C; i += nthr) {  // the static context, once
-    const int r = i / C, c = i % C;
-    const long long row = row0 + r;
-    x_s[(D + c) * R + r] = row < B ? ctx[row * C + c] : 0.0f;
-  }
-  __syncthreads();
-
-  const float* h_top = h_s + (L - 1) * HR;
-  for (int t = 0; t < T; ++t) {
-    // x_t = coin_t > 0 ? teacher_t : y_{t-1}
-    for (int i = tid; i < R * D; i += nthr) {
-      const int r = i / D, d = i % D;
-      const long long row = row0 + r;
-      float x = 0.0f;
-      if (row < B) {
-        const size_t q = (size_t)t * B + row;
-        x = coins[q] > 0.0f ? teacher[q * D + d] : y_s[d * R + r];
-      }
-      x_s[d * R + r] = x;
-    }
-    __syncthreads();
-    for (int l = 0; l < L; ++l)
-      fwd_layer_step<RT>(
-          l == 0 ? x_s : h_s + (l - 1) * HR, l == 0 ? D + C : H, h_s + l * HR,
-          c_s + l * HR, a.w[l], a.b[l], static_cast<RT*>(a.hs[l]),
-          static_cast<RT*>(a.cs[l]), static_cast<RT*>(a.gs[l]), row0, B, T, t,
-          H, R, r0, j0, tid, nthr);
-    // y_t = h_top @ proj_w + proj_b from the f32 h: written out and fed back
-    for (int i = tid; i < R * D; i += nthr) {
-      const int r = i / D, d = i % D;
-      float y = 0.0f;
-      for (int k = 0; k < H; ++k)
-        y = fmaf(h_top[k * R + r], __ldg(a.proj_w + k * D + d), y);
-      y += __ldg(a.proj_b + d);
-      y_s[d * R + r] = y;
-      const long long row = row0 + r;
-      if (row < B) ys[((size_t)row * T + t) * D + d] = y;
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward recurrence
-// ---------------------------------------------------------------------------
-
-struct SsBwdArgs {
-  const float* w0;              // layer 0's W (D + C + H, 4H): rows :D give dx
-  const float* wt[MAX_LAYERS];  // l == 0: W[D+C:]ᵀ (4H, H); l > 0:
-                                // [W[H:]; W[:H]]ᵀ (4H, 2H), dh part first
-  const float* wtc;             // layer 0's W[D:D+C]ᵀ (4H, C); null if C == 0
-  const void* cs[MAX_LAYERS];   // (B, T, H) residual type
-  const void* gs[MAX_LAYERS];   // (B, T, 4H)
-  float* dg[MAX_LAYERS];        // (B, T, 4H) dgates out
-  const float* proj_w;          // (H, D)
-};
-
-template <typename RT>
-__global__ void __launch_bounds__(256)
-    ss_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ c0,
-                  const float* __restrict__ coins, const SsBwdArgs a,
-                  float* __restrict__ dy, float* __restrict__ dteacher,
-                  float* __restrict__ dy0, float* __restrict__ dh0,
-                  float* __restrict__ dc0, float* __restrict__ dctx, int B,
-                  int T, int D, int C, int H, int L, int R) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int j0 = (tid % (H / TJ)) * TJ;
-  const int r0 = (tid / (H / TJ)) * TR;
-  const int HR = H * R, G = 4 * H;
-  float* dg_s = smem;             // (4H, R) dgates of this layer-step
-  float* dh_s = dg_s + G * R;     // L x owner-private (TR * TJ, nthr)
-  float* dc_s = dh_s + L * HR;    // L x owner-private
-  float* dctx_s = dc_s + L * HR;  // (C, R) dctx, each entry summed by its owner
-  float* fb_s = dctx_s + C * R;   // (D, R) feedback gradient of y_{t-1}
-  float* dy_s = fb_s + D * R;     // (D, R) total gradient of y_t
-  const long long row0 = (long long)blockIdx.x * R;
-
-  // the decoder's final states get no gradient: the carries start at 0
-  for (int i = tid; i < (2 * L * H + C + D) * R; i += nthr) dh_s[i] = 0.0f;
-  __syncthreads();
-
-  for (int t = T - 1; t >= 0; --t) {
-    // dy_t = dys_t + the feedback from step t + 1
-    for (int i = tid; i < R * D; i += nthr) {
-      const int r = i / D, d = i % D;
-      const long long row = row0 + r;
-      float v = 0.0f;
-      if (row < B) {
-        const size_t q = ((size_t)row * T + t) * D + d;
-        v = dys[q] + fb_s[d * R + r];
-        dy[q] = v;
-      }
-      dy_s[d * R + r] = v;
-    }
-    __syncthreads();
-    float above[TR][TJ];  // dy_t · proj_wᵀ, the gradient at the top layer's h
-#pragma unroll
-    for (int r = 0; r < TR; ++r)
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        float s = 0.0f;
-        for (int d = 0; d < D; ++d)
-          s = fmaf(dy_s[d * R + r0 + r], __ldg(a.proj_w + (size_t)(j0 + j) * D + d), s);
-        above[r][j] = s;
-      }
-    for (int l = L - 1; l >= 0; --l) {
-      bwd_cell_step<RT>(static_cast<const RT*>(a.gs[l]),
-                        static_cast<const RT*>(a.cs[l]), c0, a.dg[l], above,
-                        dh_s + l * HR, dc_s + l * HR, dg_s, row0, B, T, t, l,
-                        H, R, r0, j0, tid, nthr);
-      __syncthreads();  // dgates of this layer-step complete in dg_s
-
-      if (l > 0) {
-        float acc[2][TR][TJ];
-        zero(acc);
-        accumulate<2>(acc, dg_s, G, a.wt[l], 2 * H, H, R, r0, j0);
-#pragma unroll
-        for (int r = 0; r < TR; ++r)
-#pragma unroll
-          for (int j = 0; j < TJ; ++j) {
-            dh_s[l * HR + (r * TJ + j) * nthr + tid] = acc[0][r][j];
-            above[r][j] = acc[1][r][j];
-          }
-      } else {
-        float acc[1][TR][TJ];
-        zero(acc);
-        accumulate<1>(acc, dg_s, G, a.wt[0], H, 0, R, r0, j0);
-#pragma unroll
-        for (int r = 0; r < TR; ++r)
-#pragma unroll
-          for (int j = 0; j < TJ; ++j)
-            dh_s[(r * TJ + j) * nthr + tid] = acc[0][r][j];
-        // dctx += dgates · W[D:D+C]ᵀ: the thread owns units c .. c + 3
-        for (int c = j0; c < C; c += H) {
-          float cacc[1][TR][TJ];
-          zero(cacc);
-          accumulate<1>(cacc, dg_s, G, a.wtc, C, 0, R, r0, c);
-#pragma unroll
-          for (int r = 0; r < TR; ++r)
-#pragma unroll
-            for (int j = 0; j < TJ; ++j) dctx_s[(c + j) * R + r0 + r] += cacc[0][r][j];
-        }
-        // dx = dgates · W[:D]ᵀ → dteacher_t, and the feedback to y_{t-1}
-        input_grad(dg_s, a.w0, D, G, R, row0, B, tid, nthr,
-                   [&](int r, int d, float dx) {
-                     const size_t q = (size_t)t * B + row0 + r;
-                     const float coin = coins[q];
-                     dteacher[q * D + d] = dx * coin;
-                     fb_s[d * R + r] = dx * (1.0f - coin);
-                   });
-      }
-      __syncthreads();  // dg_s is read by everyone before it is overwritten
-    }
-  }
-
-  for (int i = tid; i < R * D; i += nthr) {
-    const int r = i / D, d = i % D;
-    const long long row = row0 + r;
-    if (row < B) dy0[row * D + d] = fb_s[d * R + r];
-  }
-  for (int i = tid; i < R * C; i += nthr) {
-    const int r = i / C, c = i % C;
-    const long long row = row0 + r;
-    if (row < B) dctx[row * C + c] = dctx_s[c * R + r];
-  }
-  for (int l = 0; l < L; ++l)
-#pragma unroll
-    for (int r = 0; r < TR; ++r) {
-      const long long row = row0 + r0 + r;
-      if (row >= B) continue;
-      float vh[TJ], vc[TJ];
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        vh[j] = dh_s[l * HR + (r * TJ + j) * nthr + tid];
-        vc[j] = dc_s[l * HR + (r * TJ + j) * nthr + tid];
-      }
-      F::st4(dh0 + ((size_t)l * B + row) * H + j0, vh);
-      F::st4(dc0 + ((size_t)l * B + row) * H + j0, vc);
-    }
-}
 
 // ---------------------------------------------------------------------------
 // dproj reduction
@@ -323,146 +102,43 @@ __global__ void __launch_bounds__(1024)
 // cudaGetLastError() (0 = ok).
 // ---------------------------------------------------------------------------
 
-static bool bad_shape(int batch, int t_len, int d, int ctx_dim, int hidden,
-                      int layers, int rows) {
-  return layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
-         rows < TR || rows % TR || batch < 1 || t_len < 1 || d < 1 ||
-         ctx_dim < 0 || ctx_dim % 4 || (rows / TR) * (hidden / TJ) > 256;
-}
-
-#define SET_SMEM_AND_LAUNCH(KERNEL, ...)                                      \
-  {                                                                           \
-    cudaError_t e = cudaFuncSetAttribute(                                     \
-        KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);      \
-    if (e != cudaSuccess) return (int)e;                                      \
-    KERNEL<<<grid, threads, smem, st>>>(__VA_ARGS__);                         \
-  }
-
 extern "C" {
 
-// rows: batch rows per block, a multiple of 4. The block has
-// (rows / 4) * (hidden / 4) threads and (2 * layers * hidden + 2 * d +
-// ctx_dim) * rows floats of dynamic shared memory. ctx is null when
-// ctx_dim == 0; coins (t_len, batch), teacher (t_len, batch, d).
+// ss_fwd, ss_bwd and ss_dw: the static-context instances of lstm_common.cuh's
+// launches (see ss_fwd_launch, ss_bwd_launch and ss_dw_layers for the
+// arguments, block shapes and shared memory). ctx and dctx are (batch,
+// ctx_dim), null when ctx_dim == 0.
 int ss_fwd(const void* h0, const void* c0, const void* y0, const void* teacher,
            const void* coins, const void* ctx, const void* const* w,
            const void* const* b, const void* proj_w, const void* proj_b,
            void* const* hs, void* const* cs, void* const* gs, void* ys,
            int batch, int t_len, int d, int ctx_dim, int hidden, int layers,
            int rows, int bf16, void* stream) {
-  if (bad_shape(batch, t_len, d, ctx_dim, hidden, layers, rows))
-    return (int)cudaErrorInvalidValue;
-  SsFwdArgs a;
-  for (int l = 0; l < MAX_LAYERS; ++l) {
-    const bool on = l < layers;
-    a.w[l] = on ? static_cast<const float*>(w[l]) : nullptr;
-    a.b[l] = on ? static_cast<const float*>(b[l]) : nullptr;
-    a.hs[l] = on ? hs[l] : nullptr;
-    a.cs[l] = on ? cs[l] : nullptr;
-    a.gs[l] = on ? gs[l] : nullptr;
-  }
-  a.proj_w = static_cast<const float*>(proj_w);
-  a.proj_b = static_cast<const float*>(proj_b);
-  const size_t smem =
-      ((size_t)2 * layers * hidden + 2 * d + ctx_dim) * rows * sizeof(float);
-  const int threads = (rows / TR) * (hidden / TJ);
-  const int grid = (batch + rows - 1) / rows;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float *hh = static_cast<const float*>(h0), *cc = static_cast<const float*>(c0),
-              *yy = static_cast<const float*>(y0),
-              *te = static_cast<const float*>(teacher),
-              *co = static_cast<const float*>(coins),
-              *cx = static_cast<const float*>(ctx);
-  float* out = static_cast<float*>(ys);
-  if (bf16)
-    SET_SMEM_AND_LAUNCH(ss_fwd_kernel<__nv_bfloat16>, hh, cc, yy, te, co, cx, a,
-                        out, batch, t_len, d, ctx_dim, hidden, layers, rows)
-  else
-    SET_SMEM_AND_LAUNCH(ss_fwd_kernel<float>, hh, cc, yy, te, co, cx, a, out,
-                        batch, t_len, d, ctx_dim, hidden, layers, rows)
-  return (int)cudaGetLastError();
+  return ss_fwd_launch<false>(h0, c0, y0, teacher, coins, ctx, w, b, proj_w,
+                              proj_b, hs, cs, gs, ys, batch, t_len, d, ctx_dim,
+                              hidden, layers, rows, bf16, stream);
 }
 
-// Same block shape as ss_fwd, with (4 * hidden + 2 * layers * hidden +
-// ctx_dim + 2 * d) * rows floats of dynamic shared memory. w0 is layer 0's
-// W; wt its transposed blocks (see SsBwdArgs); wtc null when ctx_dim == 0.
 int ss_bwd(const void* dys, const void* c0, const void* coins, const void* w0,
            const void* const* wt, const void* wtc, const void* proj_w,
            const void* const* cs, const void* const* gs, void* const* dg,
            void* dy, void* dteacher, void* dy0, void* dh0, void* dc0,
            void* dctx, int batch, int t_len, int d, int ctx_dim, int hidden,
            int layers, int rows, int bf16, void* stream) {
-  if (bad_shape(batch, t_len, d, ctx_dim, hidden, layers, rows))
-    return (int)cudaErrorInvalidValue;
-  SsBwdArgs a;
-  a.w0 = static_cast<const float*>(w0);
-  a.wtc = static_cast<const float*>(wtc);
-  a.proj_w = static_cast<const float*>(proj_w);
-  for (int l = 0; l < MAX_LAYERS; ++l) {
-    const bool on = l < layers;
-    a.wt[l] = on ? static_cast<const float*>(wt[l]) : nullptr;
-    a.cs[l] = on ? cs[l] : nullptr;
-    a.gs[l] = on ? gs[l] : nullptr;
-    a.dg[l] = on ? static_cast<float*>(dg[l]) : nullptr;
-  }
-  const size_t smem = ((size_t)4 * hidden + (size_t)2 * layers * hidden +
-                       ctx_dim + 2 * d) * rows * sizeof(float);
-  const int threads = (rows / TR) * (hidden / TJ);
-  const int grid = (batch + rows - 1) / rows;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float *up = static_cast<const float*>(dys), *cc = static_cast<const float*>(c0),
-              *co = static_cast<const float*>(coins);
-  float *o_dy = static_cast<float*>(dy), *o_dt = static_cast<float*>(dteacher),
-        *o_dy0 = static_cast<float*>(dy0), *o_dh = static_cast<float*>(dh0),
-        *o_dc = static_cast<float*>(dc0), *o_dx = static_cast<float*>(dctx);
-  if (bf16)
-    SET_SMEM_AND_LAUNCH(ss_bwd_kernel<__nv_bfloat16>, up, cc, co, a, o_dy, o_dt,
-                        o_dy0, o_dh, o_dc, o_dx, batch, t_len, d, ctx_dim,
-                        hidden, layers, rows)
-  else
-    SET_SMEM_AND_LAUNCH(ss_bwd_kernel<float>, up, cc, co, a, o_dy, o_dt, o_dy0,
-                        o_dh, o_dc, o_dx, batch, t_len, d, ctx_dim, hidden,
-                        layers, rows)
-  return (int)cudaGetLastError();
+  return ss_bwd_launch<false>(dys, c0, coins, w0, wt, wtc, proj_w, cs, gs, dg,
+                              dy, dteacher, dy0, dh0, dc0, dctx, batch, t_len,
+                              d, ctx_dim, hidden, layers, rows, bf16, stream);
 }
 
-// dW/db per layer (lstm_common.cuh's reduction; layer 0's input rebuilt from
-// coins, teacher, ys, y0 and ctx). `partial` holds splits x
-// (max_l(in_l + H) + 1) x 4H floats, reused layer after layer.
 int ss_dw(const void* h0, const void* y0, const void* teacher,
           const void* coins, const void* ctx, const void* ys,
           const void* const* hs, const void* const* cs, const void* const* gs,
           const void* const* dg, void* partial, void* const* dw,
           void* const* db, int batch, int t_len, int d, int ctx_dim,
           int hidden, int layers, int splits, int bf16, void* stream) {
-  if (layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
-      batch < 1 || t_len < 1 || d < 1 || ctx_dim < 0 || splits < 1 ||
-      (long long)batch * t_len >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int l = 0; l < layers; ++l) {
-    DwArgs a = {};
-    a.h0 = static_cast<const float*>(h0) + (size_t)l * batch * hidden;
-    a.hs = hs[l];
-    a.dg = static_cast<const float*>(dg[l]);
-    if (l > 0) {
-      a.cs_in = cs[l - 1];
-      a.gs_in = gs[l - 1];
-    } else {
-      a.coins = static_cast<const float*>(coins);
-      a.teacher = static_cast<const float*>(teacher);
-      a.ys = static_cast<const float*>(ys);
-      a.y0 = static_cast<const float*>(y0);
-      a.ctx = static_cast<const float*>(ctx);
-      a.C = ctx_dim;
-    }
-    const cudaError_t e = dw_layer(
-        a, static_cast<float*>(partial), static_cast<float*>(dw[l]),
-        static_cast<float*>(db[l]), batch, t_len, d, hidden,
-        l == 0 ? d + ctx_dim : hidden, splits, bf16 != 0, st);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  return ss_dw_layers(h0, y0, teacher, coins, ctx, nullptr, nullptr, 0, ys,
+                      hs, cs, gs, dg, partial, dw, db, batch, t_len, d,
+                      ctx_dim, hidden, layers, splits, bf16, stream);
 }
 
 // dproj_w (hidden, d) and dproj_b (d,) over the batch·t_len rows of hs_top

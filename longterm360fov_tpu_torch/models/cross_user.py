@@ -11,9 +11,15 @@ with zero context.
 
 Params are the seq2seq tree plus ``"peer_encoder"``, one ``LSTMParams``.
 
-The time-aligned ``peer_align`` tier (preset ``stacked-ss-crossuser-10s``)
-has its plain path here (:func:`encode_peers_aligned`, :func:`apply`); its
-fused training and serving tiers raise, naming their ROADMAP.md item.
+The time-aligned ``peer_align`` tier (preset ``stacked-ss-crossuser-10s``):
+decoder step t conditions on the masked mean of the peer encoders' hidden
+states at step t. Its plain path is :func:`encode_peers_aligned` +
+:func:`apply`; its kernels are the lockstep-peer tier of
+``ops.fused_lstm.fused_serve`` (:func:`serve_fused`) and
+``ops.lstm_align.aligned_ss_decode`` (:func:`apply_fused_tf`,
+:func:`apply_fused_ss`). Without peers, or with an explicit context, the
+tier computes the JAX package's function, the static-context model, on the
+static-context kernels.
 """
 
 from __future__ import annotations
@@ -36,13 +42,6 @@ __all__ = [
     "encode_peers",
     "encode_peers_aligned",
 ]
-
-_ALIGNED = (
-    "the time-aligned peer_align tier of the cross_user family is not "
-    "ported yet (ROADMAP.md Queue 2, fused_serve(peer_xs=...) and "
-    "aligned_ss_decode; preset stacked-ss-crossuser-10s)"
-)
-
 
 def init(gen: torch.Generator, cfg: Seq2SeqConfig, *, device) -> Dict:
     """Seq2seq params + a peer encoder with hidden size ``cfg.ctx_dim``."""
@@ -120,6 +119,60 @@ def encode_peers_aligned(
     return _masked_mean(hs, other_mask, 1)
 
 
+def _peer_weights(other_mask: Optional[torch.Tensor], batch: int, k: int, device) -> torch.Tensor:
+    """The lockstep tier's (B, K) mask weights: ``mask / max(Σ mask, 1)``,
+    or ``1/K`` for every peer without a mask."""
+    if other_mask is None:
+        return torch.full((batch, k), 1.0 / k, device=device)
+    m = other_mask.float()
+    return (m / torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)).contiguous()
+
+
+def _check_span(other_future_n: torch.Tensor, h_out: int, what: str):
+    if other_future_n.shape[2] != h_out:
+        raise ValueError(
+            f"peer_align {what} requires peer windows spanning the decode horizon: got "
+            f"span {other_future_n.shape[2]} != h_out {h_out}"
+        )
+
+
+def _apply_fused_aligned(
+    params: Dict,
+    cfg: Seq2SeqConfig,
+    past_n: torch.Tensor,
+    future_n: torch.Tensor,
+    *,
+    other_future_n: torch.Tensor,
+    other_mask: Optional[torch.Tensor],
+    coins: torch.Tensor,
+    residual_dtype: torch.dtype = torch.bfloat16,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """Training forward of ``cfg.peer_align`` on the lockstep-peer kernels:
+    the encoder on ``lstm_seq_states`` with f32 residuals (as in JAX), the K
+    peer encoders and the decoder on ``ops.lstm_align.aligned_ss_decode``,
+    whose residuals default to bf16, with explicit coins (H_out, B, 1). A
+    peer span other than h_out raises."""
+    from ..ops.lstm_align import aligned_ss_decode
+    from ..ops.lstm_train import lstm_seq_states
+
+    _check_span(other_future_n, future_n.shape[1], "training")
+    batch, k, t_out, d = other_future_n.shape
+    z = past_n.new_zeros((cfg.layers, batch, cfg.hidden), dtype=torch.float32)
+    _, hT, cT = lstm_seq_states(params["encoder"], past_n.float().contiguous(), z, z,
+                                torch.float32, compute_dtype)
+    y0 = past_n[:, -1].float()
+    teacher_tm = torch.cat([y0[None], future_n.float().transpose(0, 1)[:-1]], dim=0)
+    # (B, K, T, D) → time-major (T, B, K·D), the JAX kernel's layout
+    pxs_tm = other_future_n.float().permute(2, 0, 1, 3).reshape(t_out, batch, k * d)
+    pwt = _peer_weights(other_mask, batch, k, past_n.device)
+    return aligned_ss_decode(
+        params["decoder"], params["proj"]["w"].float(), params["proj"]["b"].float(),
+        params["peer_encoder"], hT, cT, y0.contiguous(), teacher_tm.contiguous(),
+        pxs_tm.contiguous(), (coins.float(), pwt), residual_dtype, compute_dtype,
+    )
+
+
 def _context(params, cfg, past_n, other_future_n, other_mask, **encode_kw):
     if other_future_n is not None:
         return encode_peers(params, cfg, other_future_n, other_mask, **encode_kw)
@@ -162,16 +215,21 @@ def apply_fused_tf(
     other_future_n: Optional[torch.Tensor] = None,
     other_mask: Optional[torch.Tensor] = None,
     context: Optional[torch.Tensor] = None,
+    residual_dtype: torch.dtype = torch.bfloat16,
     compute_dtype=torch.float32,
 ) -> torch.Tensor:
     """Teacher-forced forward entirely on the training kernels, the peer
-    encoder included."""
-    if cfg.peer_align:
-        raise NotImplementedError(f"apply_fused_tf: {_ALIGNED}")
+    encoder included. Under ``peer_align`` with peers: scheduled sampling
+    with every coin heads on the lockstep kernels."""
+    if cfg.peer_align and other_future_n is not None and context is None:
+        coins = past_n.new_ones((future_n.shape[1], past_n.shape[0], 1), dtype=torch.float32)
+        return _apply_fused_aligned(params, cfg, past_n, future_n, other_future_n=other_future_n,
+                                    other_mask=other_mask, coins=coins,
+                                    residual_dtype=residual_dtype, compute_dtype=compute_dtype)
     if context is None:
         context = _context(params, cfg, past_n, other_future_n, other_mask, use_fused_seq=True)
     return seq2seq.apply_fused_tf(params, cfg, past_n, future_n, context=context,
-                                  compute_dtype=compute_dtype)
+                                  residual_dtype=residual_dtype, compute_dtype=compute_dtype)
 
 
 def apply_fused_ss(
@@ -191,9 +249,18 @@ def apply_fused_ss(
 ) -> torch.Tensor:
     """Scheduled-sampling training forward on the kernels: the peer encoder
     on ``lstm_seq``, the encoder on ``lstm_seq_states``, the decoder on
-    ``ss_decode``."""
-    if cfg.peer_align:
-        raise NotImplementedError(f"apply_fused_ss: {_ALIGNED}")
+    ``ss_decode``; under ``peer_align`` with peers, the encoder on
+    ``lstm_seq_states`` and the peers and decoder on ``aligned_ss_decode``.
+    The coins are ``coins`` (H_out, B, 1), or drawn from ``rng`` at
+    ``teacher_prob`` as ``seq2seq.apply`` draws them."""
+    if cfg.peer_align and other_future_n is not None and context is None:
+        if coins is None:
+            if rng is None:
+                raise ValueError("apply_fused_ss needs rng or explicit coins")
+            coins = seq2seq.draw_coins(rng, teacher_prob, cfg.h_out, past_n.shape[0])
+        return _apply_fused_aligned(params, cfg, past_n, future_n, other_future_n=other_future_n,
+                                    other_mask=other_mask, coins=coins,
+                                    residual_dtype=residual_dtype, compute_dtype=compute_dtype)
     if context is None:
         context = _context(params, cfg, past_n, other_future_n, other_mask, use_fused_seq=True)
     return seq2seq.apply_fused_ss(
@@ -214,9 +281,22 @@ def serve_fused(
 ) -> torch.Tensor:
     """Whole-request fused serve with peer conditioning: the peers encode
     through the inference-only ``fused_encode`` kernel, then the
-    ``fused_serve`` kernel runs with the resulting static context."""
+    ``fused_serve`` kernel runs with the resulting static context. Under
+    ``peer_align`` with peers, the lockstep tier of ``fused_serve``: step
+    t's context is the mask-weighted mean of the peer encoders' hidden
+    states at step t; a peer span other than h_out raises."""
     if cfg.peer_align and other_future_n is not None and context is None:
-        raise NotImplementedError(f"serve_fused: {_ALIGNED}")
+        from ..ops.fused_lstm import fused_serve
+
+        _check_span(other_future_n, cfg.h_out, "serving")
+        batch, k = other_future_n.shape[:2]
+        return fused_serve(
+            params["encoder"], params["decoder"], params["proj"]["w"], params["proj"]["b"],
+            past_n, cfg.h_out, peer_params=params["peer_encoder"],
+            peer_xs=other_future_n.float().contiguous(),
+            peer_w=_peer_weights(other_mask, batch, k, past_n.device),
+            compute_dtype=compute_dtype,
+        )
     if context is None:
         context = _context(params, cfg, past_n, other_future_n, other_mask,
                            use_fused_seq="serve", compute_dtype=compute_dtype)

@@ -207,15 +207,17 @@ def apply_fused_tf(
     states read back from its residuals. A static ``context`` (B, ctx_dim)
     joins every step's decoder input.
 
-    Not ported yet, and raising: a per-step (B, H_out, ctx_dim) context
-    (the cross_user ``peer_align`` tier, ROADMAP.md, preset
-    stacked-ss-crossuser-10s) and bf16 ``compute_dtype`` (ROADMAP.md Queue
-    2, the lstm_seq_states bf16-compute tier)."""
+    Raising: a per-step (B, H_out, ctx_dim) context, which is not a tier of
+    this function (the cross_user ``peer_align`` tier builds its per-step
+    context from the peers inside ``ops.lstm_align.aligned_ss_decode``:
+    ``cross_user.apply_fused_tf``), and bf16 ``compute_dtype`` (ROADMAP.md
+    Queue 2, the lstm_seq_states bf16-compute tier)."""
     if context is not None and context.dim() != 2:
         raise NotImplementedError(
-            "apply_fused_tf: a per-step (B, H_out, C) context is the cross_user "
-            "peer_align tier, not ported yet (ROADMAP.md, preset "
-            "stacked-ss-crossuser-10s)"
+            "seq2seq.apply_fused_tf takes a static (B, C) context; a per-step "
+            "(B, H_out, C) context is the cross_user peer_align tier, whose kernels "
+            "build it from the peer windows: call cross_user.apply_fused_tf with "
+            "other_future_n"
         )
     # imported here: ops.lstm_train imports models.cell, whose package
     # imports this module

@@ -3,24 +3,31 @@ hand-written CUDA kernels and their plain PyTorch versions.
 
 Twins of ``longterm360fov_tpu.ops.fused_lstm``:
 
-* :func:`fused_serve`, in its no-context and static-context f32 tiers: the
-  L-layer encoder over the past window, then the T_out-step autoregressive
-  decoder with projection and feedback, in one launch; with a ``context``
-  (B, C) the decoder's layer-0 input is ``[y, ctx]``;
+* :func:`fused_serve`, in its no-context, static-context and lockstep-peer
+  f32 tiers: the L-layer encoder over the past window, then the T_out-step
+  autoregressive decoder with projection and feedback; with a ``context``
+  (B, C) the decoder's layer-0 input is ``[y, ctx]``, with peers
+  (:func:`fused_serve_peers`) ``[y, ctx_t]``, where ctx_t is the
+  mask-weighted mean of K peer encoders' hidden states at step t;
+* :func:`peer_context`: the lockstep tier's peer encoders, → ctx (B, T, C);
 * :func:`fused_encode`: an L-layer encoder over ``(B, T, D)`` from zero
   state, returning only the final top-layer ``h`` (B, H).
 
-Both kernels live in ``csrc/fused_serve.cu``, whose header says what bounds
+The kernels live in ``csrc/fused_serve.cu``, whose header says what bounds
 them on Hopper and what their design does about that. Each wrapper runs its
-plain version (:func:`fused_serve_reference`, :func:`fused_encode_reference`)
-on CPU tensors, and launches its kernel on CUDA tensors or raises. It never
-falls back. ``.launches`` counts each wrapper's kernel launches.
+plain version (:func:`fused_serve_reference`, :func:`peer_context_reference`,
+:func:`fused_encode_reference`) on CPU tensors, and launches its kernel on
+CUDA tensors or raises. It never falls back. ``.launches`` counts each
+wrapper's kernel launches: ``fused_serve`` those of the no-context and
+static-context tiers, ``fused_serve_peers`` and ``peer_context`` the two of
+the lockstep tier.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Sequence
 
 import torch
@@ -30,7 +37,11 @@ from . import _build
 
 __all__ = [
     "fused_serve",
+    "fused_serve_peers",
     "fused_serve_reference",
+    "peer_context",
+    "peer_context_reference",
+    "peer_rows",
     "fused_encode",
     "fused_encode_reference",
     "kernel_rows",
@@ -60,23 +71,66 @@ def fused_serve_reference(
     past_n: torch.Tensor,
     t_out: int,
     context=None,
+    *,
+    peer_params=None,
+    peer_xs=None,
+    peer_w=None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the serve kernel: (B, T_in, D) normalized
-    past, and optionally a (B, C) context → (B, t_out, D) normalized
-    predictions, step by step. On the card it needs exact f32 products
+    """Plain PyTorch version of the serve kernels: (B, T_in, D) normalized
+    past, and optionally a context, (B, C) or per step (B, t_out, C), or the
+    lockstep peers → (B, t_out, D) normalized predictions, step by step.
+    With peers, every decoder step first advances the K peer cells
+    (``peer_params``, from zero state) one step on ``peer_xs``
+    (B, K, t_out, D); their mask-weighted mean
+    ``ctx_t = Σ_k peer_w[:, k] · h_k,t``, summed in the order k = 0 .. K - 1,
+    is that step's context. On the card it needs exact f32 products
     (:func:`exact_f32_matmul`) and raises under TF32."""
     _no_tf32(past_n, "fused_serve_reference")
     states = _encode_states(enc_params, past_n)
     y = past_n[:, -1]
+    peers = None if peer_xs is None else _PeerSteps(peer_params, peer_xs, peer_w)
     ys = []
-    for _ in range(t_out):
-        inp = y if context is None else torch.cat([y, context], dim=-1)
+    for t in range(t_out):
+        ctx = peers.step(t) if peers is not None else context
+        if ctx is not None and ctx.dim() == 3:
+            ctx = ctx[:, t]
+        inp = y if ctx is None else torch.cat([y, ctx], dim=-1)
         for l, p in enumerate(dec_params):
             states[l] = lstm_cell(p, inp, states[l])
             inp = states[l][0]
         y = inp @ proj_w + proj_b
         ys.append(y)
     return torch.stack(ys, dim=1)
+
+
+class _PeerSteps:
+    """The lockstep peer encoders, one step at a time: K cells over the
+    (B·K) rows of ``peer_xs`` (B, K, T, D), from zero state; ``step(t)``
+    advances them and returns ctx_t (B, C)."""
+
+    def __init__(self, params: LSTMParams, peer_xs: torch.Tensor, peer_w: torch.Tensor):
+        b, k, t, d = peer_xs.shape
+        self.params, self.w, self.k = params, peer_w, k
+        self.xs = peer_xs.reshape(b * k, t, d)
+        zero = peer_xs.new_zeros((b * k, params.w.shape[1] // 4))
+        self.state = (zero, zero)
+
+    def step(self, t: int) -> torch.Tensor:
+        self.state = lstm_cell(self.params, self.xs[:, t], self.state)
+        h = self.state[0].reshape(self.w.shape[0], self.k, -1)
+        ctx = torch.zeros_like(h[:, 0])
+        for k in range(self.k):
+            ctx = ctx + h[:, k] * self.w[:, k:k + 1]
+        return ctx
+
+
+def peer_context_reference(peer_params: LSTMParams, peer_xs: torch.Tensor,
+                           peer_w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the peer-context kernel: the lockstep peer encoders
+    over ``peer_xs`` (B, K, T, D) → ctx (B, T, C), step by step."""
+    _no_tf32(peer_xs, "peer_context_reference")
+    peers = _PeerSteps(peer_params, peer_xs, peer_w)
+    return torch.stack([peers.step(t) for t in range(peer_xs.shape[2])], dim=1)
 
 
 def _no_tf32(t: torch.Tensor, name: str):
@@ -180,19 +234,28 @@ def fused_serve(
     _probe: str = "",
 ) -> torch.Tensor:
     """Whole serve request, encode and autoregressive decode, in one kernel
-    launch → (B, t_out, D) f32 normalized predictions.
+    launch (the lockstep tier: two) → (B, t_out, D) f32 normalized
+    predictions.
 
-    Same shapes and semantics as the JAX ``fused_serve``, in the no-context
-    and the static-context tier: a ``context`` (B, C) fills the decoder's
-    layer-0 input as ``[y, ctx]``. The JAX tiers this port does not have yet
-    raise: the lockstep ``peer_*`` tier, the bf16 ``compute_dtype`` and the
-    ``_probe`` modes."""
-    if peer_params is not None or peer_xs is not None or peer_w is not None:
-        raise NotImplementedError(
-            "fused_serve: the lockstep-peer tier is not ported yet "
-            "(ROADMAP.md Queue 2, fused_serve(peer_xs=...), preset "
-            "stacked-ss-crossuser-10s)"
-        )
+    Same shapes and semantics as the JAX ``fused_serve``: no context; a
+    ``context`` (B, C), which fills the decoder's layer-0 input as
+    ``[y, ctx]``; or the lockstep peer tier, ``peer_params`` (the shared
+    peer-encoder cell), ``peer_xs`` (B, K, t_out, D) peer futures and
+    ``peer_w`` (B, K) mask weights (``mask / max(Σ mask, 1)``), which
+    :func:`fused_serve_peers` runs. The bf16 ``compute_dtype`` and the
+    ``_probe`` modes raise."""
+    if peer_xs is not None:
+        if context is not None:
+            raise ValueError("pass either context or peer_xs, not both")
+        if compute_dtype != torch.float32 or _probe:
+            raise NotImplementedError(
+                "fused_serve: the lockstep tier is ported in exact f32 only, with no "
+                "_probe modes (ROADMAP.md Queue 2 #1, the bf16 tier)"
+            )
+        return fused_serve_peers(enc_params, dec_params, proj_w, proj_b, past_n, t_out,
+                                 peer_params, peer_xs, peer_w)
+    if peer_params is not None or peer_w is not None:
+        raise ValueError("peer_params and peer_w come with peer_xs")
     if compute_dtype != torch.float32:
         raise NotImplementedError(
             f"fused_serve: only the exact f32 tier is ported, got "
@@ -207,29 +270,131 @@ def fused_serve(
         return fused_serve_reference(
             enc_params, dec_params, proj_w, proj_b, past_n, t_out, context
         )
+    out = _launch_serve(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context,
+                        step_ctx=False)
+    fused_serve.launches += 1
+    return out
+
+
+def _launch_serve(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context, *, step_ctx):
+    """Launch the serve kernel on checked CUDA tensors: ``context`` None,
+    (B, C), or with ``step_ctx`` (B, t_out, C)."""
     batch, t_in, d = past_n.shape
     hidden, layers = proj_w.shape[0], len(enc_params)
     ctx_dim = 0 if context is None else context.shape[-1]
     if ctx_dim % 4:
         raise ValueError(f"the kernel reads the context as 16-byte rows: ctx_dim % 4 == 0, got {ctx_dim}")
     rows = kernel_rows(hidden, layers, d, ctx_dim)
-    lib = _library()
     out = torch.empty((batch, t_out, d), device=past_n.device, dtype=torch.float32)
     with torch.cuda.device(past_n.device):
-        err = lib.fused_serve_f32(
+        err = _library().fused_serve_f32(
             past_n.data_ptr(), None if context is None else context.data_ptr(), out.data_ptr(),
             _ptrs([p.w for p in enc_params]), _ptrs([p.b for p in enc_params]),
             _ptrs([p.w for p in dec_params]), _ptrs([p.b for p in dec_params]),
             proj_w.data_ptr(), proj_b.data_ptr(),
-            batch, t_in, t_out, d, ctx_dim, hidden, layers, rows,
+            batch, t_in, t_out, d, ctx_dim, hidden, layers, rows, int(step_ctx),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "fused_serve")
-    fused_serve.launches += 1
     return out
 
 
 fused_serve.launches = 0
+
+
+def peer_rows(ctx_dim: int, n_peers: int, *, tile_rows: int = _TR) -> int:
+    """Viewers per block of a peer kernel that holds all K peers of each of
+    its viewers (K·RV rows, a multiple of the thread's ``tile_rows``): as
+    many as 256 threads of ``tile_rows`` rows x 4 units cover, within the
+    block's shared memory. The serve tier's peer-context kernel takes 8 rows
+    a thread, ``ops.lstm_align``'s peer forward 4. Raises for shapes the
+    kernels do not take: above 8 peers at C = 128."""
+    if ctx_dim < 32 or ctx_dim % 32:
+        raise ValueError(f"the peer kernels need ctx_dim % 32 == 0, got {ctx_dim}")
+    if n_peers < 1:
+        raise ValueError(f"the peer kernels need K >= 1 peers, got {n_peers}")
+    max_rows = _MAX_THREADS // (ctx_dim // _TJ) * tile_rows
+    step = tile_rows // math.gcd(n_peers, tile_rows)  # the fewest viewers whose K·RV rows fill whole tiles
+    rv = max_rows // n_peers // step * step
+    while rv >= step and 4 * (2 * ctx_dim + 4) * rv * n_peers > _SMEM_LIMIT:
+        rv -= step
+    if rv < step:
+        raise ValueError(
+            f"a peer kernel holds all K peers of {step} viewers in one block of at most "
+            f"{max_rows} rows at ctx_dim={ctx_dim}: K = {n_peers} peers is more than it takes"
+        )
+    return rv
+
+
+def peer_context(peer_params: LSTMParams, peer_xs: torch.Tensor,
+                 peer_w: torch.Tensor) -> torch.Tensor:
+    """The lockstep tier's peer encoders in one kernel launch: the shared
+    cell over the peer futures ``peer_xs`` (B, K, T, D) from zero state, and
+    after every step the mask-weighted mean of the K hidden states →
+    ctx (B, T, C) f32."""
+    if peer_xs.dim() != 4 or min(peer_xs.shape) < 1:
+        raise ValueError(f"peer_xs must be a non-empty (B, K, T, D), got {tuple(peer_xs.shape)}")
+    batch, k, t_len, d = peer_xs.shape
+    c = peer_params.w.shape[1] // 4
+    tensors = _check_tensors([(peer_xs, (batch, k, t_len, d)), (peer_w, (batch, k)),
+                              (peer_params.w, (d + c, 4 * c)), (peer_params.b, (4 * c,))],
+                             peer_xs.device)
+    if not _on_card(peer_xs, tensors, "peer_context"):
+        return peer_context_reference(peer_params, peer_xs, peer_w)
+    rv = peer_rows(c, k)
+    if batch * k * t_len >= 2**31:
+        raise ValueError(f"B·K·T = {batch * k * t_len} does not fit the kernel's 32-bit row index")
+    out = torch.empty((batch, t_len, c), device=peer_xs.device, dtype=torch.float32)
+    with torch.cuda.device(peer_xs.device):
+        err = _library().peer_context_f32(
+            peer_xs.data_ptr(), peer_w.data_ptr(), out.data_ptr(),
+            peer_params.w.data_ptr(), peer_params.b.data_ptr(),
+            batch, k, t_len, d, c, rv, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "peer_context")
+    peer_context.launches += 1
+    return out
+
+
+peer_context.launches = 0
+
+
+def fused_serve_peers(
+    enc_params: Sequence[LSTMParams],
+    dec_params: Sequence[LSTMParams],
+    proj_w: torch.Tensor,
+    proj_b: torch.Tensor,
+    past_n: torch.Tensor,
+    t_out: int,
+    peer_params: LSTMParams,
+    peer_xs: torch.Tensor,  # (B, K, t_out, D) peer futures
+    peer_w: torch.Tensor,  # (B, K) mask weights
+) -> torch.Tensor:
+    """The lockstep-peer tier of :func:`fused_serve` → (B, t_out, D): on the
+    card two launches, :func:`peer_context` (ctx (B, t_out, C)) and the
+    serve kernel with that per-step context, reloaded every decoder step
+    (``csrc/fused_serve.cu`` says why the tier is split in two)."""
+    if peer_params is None or peer_w is None:
+        raise ValueError("the lockstep tier needs peer_params, peer_xs and peer_w")
+    if peer_xs.dim() != 4 or peer_xs.shape[2] != t_out:
+        raise ValueError(
+            f"lockstep peer windows must span t_out={t_out} steps, got "
+            f"{tuple(peer_xs.shape)}"
+        )
+    ctx_dim = peer_params.w.shape[1] // 4
+    # the decoder's weights take [y, ctx]: check them against a (B, C) stand-in
+    stand_in = torch.empty((past_n.shape[0], ctx_dim), device=past_n.device)
+    tensors = _check(enc_params, dec_params, proj_w, proj_b, past_n, t_out, stand_in)[:-1]
+    if not _on_card(past_n, tensors, "fused_serve_peers"):
+        return fused_serve_reference(enc_params, dec_params, proj_w, proj_b, past_n, t_out,
+                                     peer_params=peer_params, peer_xs=peer_xs, peer_w=peer_w)
+    ctx = peer_context(peer_params, peer_xs, peer_w)
+    out = _launch_serve(enc_params, dec_params, proj_w, proj_b, past_n, t_out, ctx, step_ctx=True)
+    fused_serve_peers.launches += 1
+    return out
+
+
+fused_serve_peers.launches = 0
 
 
 def fused_encode(
@@ -308,9 +473,11 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused_serve")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
-    lib.fused_serve_f32.argtypes = [vp, vp, vp, arr, arr, arr, arr, vp, vp] + [i32] * 8 + [vp]
+    lib.fused_serve_f32.argtypes = [vp, vp, vp, arr, arr, arr, arr, vp, vp] + [i32] * 9 + [vp]
     lib.fused_encode_f32.argtypes = [vp, vp, arr, arr] + [i32] * 6 + [vp]
-    lib.fused_serve_f32.restype = lib.fused_encode_f32.restype = i32
+    lib.peer_context_f32.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+    for f in (lib.fused_serve_f32, lib.fused_encode_f32, lib.peer_context_f32):
+        f.restype = i32
     lib.fused_serve_error_string.argtypes = [i32]
     lib.fused_serve_error_string.restype = ctypes.c_char_p
     return lib

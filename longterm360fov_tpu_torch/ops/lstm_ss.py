@@ -107,7 +107,8 @@ def _forward_reference(
 ) -> Tuple[torch.Tensor, Residuals]:
     """Plain version of the forward kernel: the recurrence in f32 with f32
     carries and the f32 feedback, every step's h, c and gates stored in
-    ``residual_dtype`` → (ys (B, T, D) f32, residuals)."""
+    ``residual_dtype`` → (ys (B, T, D) f32, residuals). ``context`` is
+    (B, C), or (B, T, C) for a per-step context (``ops.lstm_align``)."""
     _no_tf32(y0, "ss_fwd plain version")
     t_len, batch, d = teacher_tm.shape
     hidden = h0.shape[-1]
@@ -123,7 +124,7 @@ def _forward_reference(
     for t in range(t_len):
         inp = torch.where(coins[t] > 0, teacher_tm[t], y)
         if context is not None:
-            inp = torch.cat([inp, context], dim=-1)
+            inp = torch.cat([inp, context[:, t] if context.dim() == 3 else context], dim=-1)
         for l, p in enumerate(params):
             gates = torch.cat([inp, h[l]], dim=-1) @ p.w + p.b
             i, f, g, o = gates.chunk(4, dim=-1)
@@ -139,10 +140,12 @@ def _forward_reference(
     return ys, res
 
 
-def _bwd_recurrence_reference(params, proj_w, c0, coins, res: Residuals, dys, ctx_dim):
+def _bwd_recurrence_reference(params, proj_w, c0, coins, res: Residuals, dys, ctx_dim,
+                              step_ctx=False):
     """Plain version of the backward recurrence kernel → (dgates per layer
     (B, T, 4H), dy (B, T, D), dteacher (T, B, D), dy0 (B, D), dh0, dc0
-    (L, B, H), dctx (B, C) or None), all f32."""
+    (L, B, H), dctx (B, C) summed over t, or (B, T, C) per step with
+    ``step_ctx``, or None), all f32."""
     _no_tf32(dys, "ss_bwd plain version")
     batch, t_len, d = dys.shape
     hidden = proj_w.shape[0]
@@ -152,7 +155,7 @@ def _bwd_recurrence_reference(params, proj_w, c0, coins, res: Residuals, dys, ct
     dgates = [dys.new_empty((batch, t_len, 4 * hidden)) for _ in params]
     dy = dys.new_empty((batch, t_len, d))
     dteacher = dys.new_empty((t_len, batch, d))
-    dctx = dys.new_zeros((batch, ctx_dim))
+    dctx = dys.new_zeros((batch, t_len, ctx_dim) if step_ctx else (batch, ctx_dim))
     feedback = dys.new_zeros((batch, d))
     for t in reversed(range(t_len)):
         dy_t = dys[:, t] + feedback
@@ -178,7 +181,10 @@ def _bwd_recurrence_reference(params, proj_w, c0, coins, res: Residuals, dys, ct
             dc[l] = dc_total * f
             above = dz[:, :d_in]
         dx = above[:, :d]
-        dctx += above[:, d:]
+        if step_ctx:
+            dctx[:, t] = above[:, d:]
+        else:
+            dctx += above[:, d:]
         coin = coins[t]
         dteacher[t] = dx * coin
         feedback = dx * (1.0 - coin)
@@ -189,12 +195,15 @@ def _bwd_recurrence_reference(params, proj_w, c0, coins, res: Residuals, dys, ct
 def _layer0_input(y0, teacher_tm, coins, context, ys):
     """Layer 0's input ``[x_t, ctx]`` at every (b, t), as the backward
     rebuilds it: ``x_t`` is the teacher where the coin is up, else the f32
-    ``ys[t - 1]`` (``y0`` at t = 0) → (B, T, D + C)."""
+    ``ys[t - 1]`` (``y0`` at t = 0); ``context`` (B, C) or per step
+    (B, T, C) → (B, T, D + C)."""
     y_prev = torch.cat([y0[:, None], ys[:, :-1]], dim=1)
     x = torch.where(coins.transpose(0, 1) > 0, teacher_tm.transpose(0, 1), y_prev)
     if context is None:
         return x
-    return torch.cat([x, context[:, None].expand(-1, x.shape[1], -1)], dim=-1)
+    if context.dim() == 2:
+        context = context[:, None].expand(-1, x.shape[1], -1)
+    return torch.cat([x, context], dim=-1)
 
 
 def _dw_reference(params, h0, y0, teacher_tm, coins, context, ys, res, dgates) -> List[LSTMParams]:
@@ -235,7 +244,8 @@ def kernel_rows(hidden: int, layers: int, d: int, ctx_dim: int) -> int:
     return rows
 
 
-def _check(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, residual_dtype):
+def _check(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, residual_dtype,
+           step_ctx=False):
     if teacher_tm.dim() != 3:
         raise ValueError(f"teacher_tm must be (T, B, D), got {tuple(teacher_tm.shape)}")
     t_len, batch, d = teacher_tm.shape
@@ -250,7 +260,7 @@ def _check(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, resid
               (c0, (layers, batch, hidden)), (y0, (batch, d)), (teacher_tm, (t_len, batch, d)),
               (coins, (t_len, batch, 1))]
     if context is not None:
-        expect.append((context, (batch, ctx_dim)))
+        expect.append((context, (batch, t_len, ctx_dim) if step_ctx else (batch, ctx_dim)))
     for l, p in enumerate(params):
         in_l = d + ctx_dim if l == 0 else hidden
         expect += [(p.w, (in_l + hidden, 4 * hidden)), (p.b, (4 * hidden,))]
@@ -310,10 +320,22 @@ def ss_fwd(
     context: Optional[torch.Tensor], residual_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, Residuals]:
     """Forward recurrence → (ys (B, T, D) f32, the residuals)."""
-    ctx_dim = _check(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, residual_dtype)
+    _check(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, residual_dtype)
     if y0.device.type == "cpu":
         return _forward_reference(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins,
                                   context, residual_dtype)
+    out = fwd_launch(_library().ss_fwd, "ss_fwd", params, proj_w, proj_b, h0, c0, y0,
+                     teacher_tm, coins, context, residual_dtype)
+    ss_fwd.launches += 1
+    return out
+
+
+def fwd_launch(fn, name, params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context,
+               residual_dtype):
+    """Launch a forward recurrence kernel (``fn``: ``ss_fwd`` here, or
+    ``ops.lstm_align``'s per-step-context instance, which takes the same
+    arguments) on checked CUDA tensors → (ys, residuals)."""
+    ctx_dim = 0 if context is None else context.shape[-1]
     _ctx_ok(ctx_dim)
     t_len, batch, d = teacher_tm.shape
     hidden, layers = proj_w.shape[0], len(params)
@@ -329,9 +351,8 @@ def ss_fwd(
     ctx_t = [] if context is None else [context]
     _check_card([proj_w, proj_b, h0, c0, y0, teacher_tm, coins, *ctx_t, *ws, *bs,
                  *res.hs, *res.cs, *res.gs, ys])
-    lib = _library()
     with torch.cuda.device(dev):
-        err = lib.ss_fwd(
+        err = fn(
             h0.data_ptr(), c0.data_ptr(), y0.data_ptr(), teacher_tm.data_ptr(),
             coins.data_ptr(), None if context is None else context.data_ptr(),
             _ptrs(ws), _ptrs(bs), proj_w.data_ptr(), proj_b.data_ptr(),
@@ -339,8 +360,7 @@ def ss_fwd(
             batch, t_len, d, ctx_dim, hidden, layers, rows,
             int(residual_dtype == torch.bfloat16), _stream(),
         )
-    _raise_on(err, "ss_fwd")
-    ss_fwd.launches += 1
+    _raise_on(err, name)
     return ys, res
 
 
@@ -369,15 +389,34 @@ def ss_bwd(
     """Backward recurrence → (dgates per layer (B, T, 4H), dy (B, T, D),
     dteacher (T, B, D), dy0 (B, D), dh0, dc0 (L, B, H), dctx (B, C) or
     None), all f32."""
+    check_bwd(params, proj_w, c0, coins, res, dys, ctx_dim)
+    if dys.device.type == "cpu":
+        return _bwd_recurrence_reference(params, proj_w, c0, coins, res, dys, ctx_dim)
+    out = bwd_launch(_library().ss_bwd, "ss_bwd", params, proj_w, c0, coins, res, dys, ctx_dim,
+                     step_ctx=False)
+    ss_bwd.launches += 1
+    return out
+
+
+def check_bwd(params, proj_w, c0, coins, res: Residuals, dys, ctx_dim: int):
+    """Shapes, types and devices of a backward recurrence's inputs."""
     batch, t_len, d = dys.shape
     hidden, layers = proj_w.shape[0], len(params)
     dev = dys.device
     expect = [(proj_w, (hidden, d)), (c0, (layers, batch, hidden)), (coins, (t_len, batch, 1)),
               (dys, (batch, t_len, d))]
     _expect_f32(expect, params, d + ctx_dim, hidden, dev)
-    rdt = _check_res(res, layers, batch, t_len, hidden, dev)
-    if dev.type == "cpu":
-        return _bwd_recurrence_reference(params, proj_w, c0, coins, res, dys, ctx_dim)
+    _check_res(res, layers, batch, t_len, hidden, dev)
+
+
+def bwd_launch(fn, name, params, proj_w, c0, coins, res: Residuals, dys, ctx_dim, *, step_ctx):
+    """Launch a backward recurrence kernel (``fn``: ``ss_bwd``, or with
+    ``step_ctx`` ``ops.lstm_align``'s per-step-context instance, which
+    writes dctx (B, T, C)) on checked CUDA tensors."""
+    batch, t_len, d = dys.shape
+    hidden, layers = proj_w.shape[0], len(params)
+    dev = dys.device
+    rdt = res.hs[0].dtype
     _ctx_ok(ctx_dim)
     rows = kernel_rows(hidden, layers, d, ctx_dim)
     wt, wtc = _transposed(params, d + ctx_dim, ctx_dim)
@@ -387,13 +426,14 @@ def ss_bwd(
     dy0 = torch.empty((batch, d), device=dev)
     dh0 = torch.empty((layers, batch, hidden), device=dev)
     dc0 = torch.empty((layers, batch, hidden), device=dev)
-    dctx = torch.empty((batch, ctx_dim), device=dev) if ctx_dim else None
+    dctx = None
+    if ctx_dim:
+        dctx = torch.empty((batch, t_len, ctx_dim) if step_ctx else (batch, ctx_dim), device=dev)
     extra = [] if wtc is None else [wtc, dctx]
     _check_card([proj_w, c0, coins, dys, params[0].w, *wt, *res.cs, *res.gs, *dgates,
                  dy, dteacher, dy0, dh0, dc0, *extra])
-    lib = _library()
     with torch.cuda.device(dev):
-        err = lib.ss_bwd(
+        err = fn(
             dys.data_ptr(), c0.data_ptr(), coins.data_ptr(), params[0].w.data_ptr(),
             _ptrs(wt), None if wtc is None else wtc.data_ptr(), proj_w.data_ptr(),
             _ptrs(res.cs), _ptrs(res.gs), _ptrs(dgates), dy.data_ptr(), dteacher.data_ptr(),
@@ -401,8 +441,7 @@ def ss_bwd(
             None if dctx is None else dctx.data_ptr(),
             batch, t_len, d, ctx_dim, hidden, layers, rows, int(rdt == torch.bfloat16), _stream(),
         )
-    _raise_on(err, "ss_bwd")
-    ss_bwd.launches += 1
+    _raise_on(err, name)
     return dgates, dy, dteacher, dy0, dh0, dc0, dctx
 
 

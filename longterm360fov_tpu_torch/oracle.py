@@ -77,7 +77,9 @@ def oracle_decode(
     """Autoregressive decode with python-loop numpy — mirrors
     models.seq2seq.decode step for step.
 
-    past_n: (B, H_in, D) normalized windows → (B, H_out, D).
+    past_n: (B, H_in, D) normalized windows → (B, H_out, D). ``context``
+    is (B, C), or (B, H_out, C) for a per-step context (the cross_user
+    ``peer_align`` tier).
     """
     params = {
         "encoder": [
@@ -112,7 +114,8 @@ def oracle_decode(
     proj_w, proj_b = params["proj"]
     out = np.zeros((b_sz, cfg.h_out, cfg.d), np.float32)
     for t in range(cfg.h_out):
-        inp = y if context is None else np.concatenate([y, context], -1)
+        ctx = context if context is None or context.ndim == 2 else context[:, t]
+        inp = y if ctx is None else np.concatenate([y, ctx], -1)
         for l, (w, b) in enumerate(params["decoder"]):
             h, c = _lstm_step(w, b, inp, *dec_states[l], hid)
             dec_states[l] = (h, c)

@@ -17,10 +17,15 @@ PyTorch twin of the serve-path subset of ``longterm360fov_tpu.serving``:
   co-batching never changes any viewer's answer.
 - :func:`load_exported_params` — loads the flat dotted-key ``export`` npz
   of the JAX package into the port's params (seq2seq and cross_user trees).
+- the grouped gateway: :func:`group_pack`, :func:`make_grouped_serve_fn`
+  (its generic tier: each video's peer set rides to the device once and a
+  per-row ``gfut[gid]`` gather there feeds the family's serve path) and
+  :func:`grouped_predict`, the host side's pack → serve → unsort.
 
 Not ported yet (ROADMAP.md): the TCP daemon, per-viewer pose windows,
-hot-reload ops, grouped serving (slice 'the TCP daemon and CLI'), and the
-batcher's mesh bucket divisor (slice 'parallelism').
+hot-reload ops (slice 'the TCP daemon and CLI'), the grouped gateway's
+transformer tier (slice 'transformer'), and the batcher's mesh bucket
+divisor (slice 'parallelism').
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import geometry, infer
+from . import geometry, infer, windows
 
 __all__ = [
     "DynamicBatcher",
@@ -44,6 +49,9 @@ __all__ = [
     "required_extras_for",
     "flat_param_items",
     "load_exported_params",
+    "group_pack",
+    "make_grouped_serve_fn",
+    "grouped_predict",
 ]
 
 
@@ -595,3 +603,188 @@ class DynamicBatcher:
                 if p is not None:
                     p.error = RuntimeError("batcher is stopped")
                     p.event.set()
+
+
+# --------------------------------------------------------------------------
+# peer-group packing and the grouped gateway
+# --------------------------------------------------------------------------
+
+
+def group_pack(group_keys, tile_b: int = 128):
+    """Arrange batch rows into group-pure ``tile_b`` tiles (copied from the
+    JAX package). ``group_keys``: length-B hashables (e.g. video ids); rows
+    with equal keys share one peer set. Returns ``(perm, gid, inv, uniq)``:
+
+    * ``perm`` (B_packed,) int32: indices into the original rows (gather
+      inputs with ``past[perm]``); each group's segment is padded to a
+      multiple of ``tile_b`` by repeating the group's first row;
+    * ``gid`` (B_packed,) int32: packed row → group index;
+    * ``inv`` (B,) int32: original row i's position in the packed batch
+      (un-sort outputs with ``out_packed[inv]``);
+    * ``uniq``: the group keys in gid order."""
+    keys = list(group_keys)
+    uniq: list = []
+    index: dict = {}
+    rows_by_group: list = []
+    for i, k in enumerate(keys):
+        g = index.get(k)
+        if g is None:
+            g = index[k] = len(uniq)
+            uniq.append(k)
+            rows_by_group.append([])
+        rows_by_group[g].append(i)
+    perm, gid = [], []
+    inv = np.empty(len(keys), np.int32)
+    for g, rows in enumerate(rows_by_group):
+        for r in rows:
+            inv[r] = len(perm)
+            perm.append(r)
+        pad = (-len(rows)) % tile_b
+        perm.extend([rows[0]] * pad)
+        gid.extend([g] * (len(rows) + pad))
+    return np.asarray(perm, np.int32), np.asarray(gid, np.int32), inv, uniq
+
+
+def make_grouped_serve_fn(
+    params,
+    cfg,
+    fam,
+    *,
+    device,
+    packed: bool = False,
+    impl: str = "fused",
+) -> Callable:
+    """Group-shared peer serving program: ``fn(past, group_future,
+    group_mask, gid) → {"yaw", "pitch", "prefetch"}`` (or, with ``packed``,
+    one (B, 2·H_out + M) tensor and ``fn.unpack``), where each video's peer
+    set reaches the device once instead of once per viewer. The prefetch
+    mask is :func:`make_serve_fn`'s default tile grid and field of view.
+
+    Inputs are the :func:`group_pack` layout: ``past`` (B_packed, h_in, 3)
+    raw xyz, ``group_future`` (G, K, h_out, 3) raw shared peer sets in group
+    order, ``group_mask`` (G, K) validity, ``gid`` (B_packed,) row → group;
+    arrays or tensors, moved to ``device``.
+
+    The generic tier of the JAX ``make_grouped_serve_fn``: the per-row peer
+    tensor is gathered on the device (``gfut[gid]``), then the family's
+    ``batch_extras`` (each row's anchor) and its serve path run unchanged:
+    ``serve_fused`` for ``impl="fused"`` (the lockstep-peer kernels under
+    ``peer_align``), ``apply`` for ``"plain"``. Same math as per-row
+    serving; no tile purity needed (``fn.tile_b = 1``). The transformer's
+    shared-KV tier raises: that family is not ported."""
+    from .train import default_extras
+
+    device = torch.device(device)
+    if impl not in infer.IMPLS:
+        raise ValueError(f"impl must be one of {infer.IMPLS}, got {impl!r}")
+    if cfg.model_family == "transformer":
+        raise NotImplementedError(
+            "make_grouped_serve_fn: the transformer family's shared-KV tier is not ported yet "
+            "(ROADMAP.md, slice 'transformer')"
+        )
+    extras_fn = getattr(fam, "batch_extras", None) or default_extras
+    # behaviour probe, not cfg.n_other_users (K is a serving-time knob): a
+    # family that ignores "other_future" would serve every request peerless
+    probe = extras_fn(
+        {"other_future": torch.zeros((1, 1, 1, 3)), "other_mask": torch.ones((1, 1))},
+        torch.zeros((1, 1, 3)),
+    )
+    if not probe:
+        raise ValueError(
+            f"preset {cfg.name!r} ({cfg.model_family!r}) consumes no peer context — grouped "
+            f"serving has nothing to share; use make_serve_fn"
+        )
+    h_out = cfg.model.h_out
+
+    @torch.inference_mode()
+    def fn(past, gfut, gmask, gid):
+        past, gfut, gmask = (torch.as_tensor(x, dtype=torch.float32, device=device)
+                             for x in (past, gfut, gmask))
+        gid = torch.as_tensor(gid, dtype=torch.long, device=device)
+        past_n, _, anchor = windows.normalize_window(past)
+        kw = extras_fn({"other_future": gfut[gid], "other_mask": gmask[gid]}, anchor)
+        if impl == "fused":
+            pred_n = fam.serve_fused(params, cfg.model, past_n.contiguous(), **kw)
+        else:
+            pred_n = fam.apply(params, cfg.model, past_n, None, **kw)
+        xyz = windows.denormalize_window(pred_n, anchor, to_sphere=True)
+        yaw, pitch = geometry.xyz_to_euler(xyz)
+        out = {"yaw": yaw, "pitch": pitch, "prefetch": infer.tiles_for_fov(xyz).any(dim=1)}
+        if packed:
+            return torch.cat([v.float() for v in out.values()], dim=-1)
+        return out
+
+    fn.tile_b = 1
+    # the input contract grouped_predict checks on the host
+    fn.h_in = cfg.model.h_in
+    fn.peer_span = h_out
+    if packed:
+        fn.unpack = lambda host: {"yaw": host[..., :h_out], "pitch": host[..., h_out:2 * h_out],
+                                  "prefetch": host[..., 2 * h_out:] > 0.5}
+    return fn
+
+
+def grouped_predict(
+    fn: Callable,
+    pasts: np.ndarray,
+    group_keys,
+    group_sets: Dict,
+    group_masks: Optional[Dict] = None,
+) -> Dict[str, np.ndarray]:
+    """Host side of grouped serving, as the JAX ``grouped_predict``:
+    :func:`group_pack` the batch, pad the packed rows and the group count up
+    power-of-two ladders, run ``fn`` (a :func:`make_grouped_serve_fn`
+    program), and un-sort the outputs to the caller's row order.
+
+    ``pasts`` (N, h_in, 3) raw xyz; ``group_keys`` length-N hashables;
+    ``group_sets``: key → (K, h_out, 3) raw shared peer windows;
+    ``group_masks``: key → (K,) validity (default: peers with any nonzero
+    frame). Row padding repeats the last packed row; group padding appends
+    zero-mask sets no row points at."""
+    pasts = np.ascontiguousarray(np.asarray(pasts, np.float32))
+    keys = list(group_keys)
+    if len(keys) != pasts.shape[0]:
+        raise ValueError(f"{pasts.shape[0]} windows but {len(keys)} group keys")
+    h_in = getattr(fn, "h_in", None)
+    if h_in is not None and pasts.shape[1:] != (h_in, 3):
+        raise ValueError(f"past windows must be (N, {h_in}, 3), got {pasts.shape}")
+    span = getattr(fn, "peer_span", None)
+    if span is not None:
+        for k, v in group_sets.items():
+            v = np.asarray(v)
+            if v.ndim != 3 or v.shape[1] != span or v.shape[2] != 3:
+                raise ValueError(f"group_sets[{k!r}] must be (K, {span}, 3), got {v.shape}")
+    tile_b = getattr(fn, "tile_b", 128)
+    perm, gid, inv, uniq = group_pack(keys, tile_b)
+    missing = [k for k in uniq if k not in group_sets]
+    if missing:
+        raise KeyError(f"group_sets missing peer sets for {missing}")
+    gfut = np.stack([np.asarray(group_sets[k], np.float32) for k in uniq])  # (G, K, T, 3)
+    if group_masks is None:
+        gmask = (np.abs(gfut).max(axis=(2, 3)) > 0).astype(np.float32)
+    else:
+        gmask = np.stack([np.asarray(group_masks[k], np.float32) for k in uniq])
+    past_p = pasts[perm]
+    # batch bucket ladder: padded rows extend the last group's segment
+    bp = past_p.shape[0]
+    bucket = tile_b
+    while bucket < bp:
+        bucket *= 2
+    if bucket > bp:
+        past_p = np.concatenate([past_p, np.broadcast_to(past_p[-1:], (bucket - bp,) + past_p.shape[1:])])
+        gid = np.concatenate([gid, np.full(bucket - bp, gid[-1], np.int32)])
+    # group bucket ladder: zero-mask sets no row's gid reaches
+    g = gfut.shape[0]
+    gb = 1
+    while gb < g:
+        gb *= 2
+    if gb > g:
+        gfut = np.concatenate([gfut, np.zeros((gb - g,) + gfut.shape[1:], np.float32)])
+        gmask = np.concatenate([gmask, np.zeros((gb - g, gmask.shape[1]), np.float32)])
+    out = fn(past_p, gfut, gmask, gid)
+    unpack = getattr(fn, "unpack", None)
+    if unpack is not None:
+        host = unpack(out.cpu().numpy())
+    else:
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+    return {k: v[inv] for k, v in host.items()}

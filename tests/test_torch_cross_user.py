@@ -168,19 +168,31 @@ def test_apply_fused_ss_matches_jax(layers):
         jp, jcfg, _j(past), _j(fut), other_future_n=_j(others), other_mask=_j(mask))), atol=2e-2)
 
 
-def test_peer_align_fused_tiers_raise():
-    """The lockstep tiers are not ported: they raise, never run the plain
-    path in silence."""
-    _, tcfg, _, tp, past, fut, others, mask = _setup(seed=0, peer_align=True)
+@pytest.mark.parametrize("fn", ["serve_fused", "apply_fused_tf", "apply_fused_ss"])
+def test_peer_align_fused_tiers_match_jax(fn):
+    """The lockstep tiers run (the kernels' plain versions here) and match
+    the JAX fused tier of the same name and the XLA aligned path."""
+    jcfg, tcfg, jp, tp, past, fut, others, mask = _setup(seed=0, peer_align=True)
     peers = dict(other_future_n=_t(others), other_mask=_t(mask))
-    for call in (
-        lambda: cross_user.serve_fused(tp, tcfg, _t(past), **peers),
-        lambda: cross_user.apply_fused_tf(tp, tcfg, _t(past), _t(fut), **peers),
-        lambda: cross_user.apply_fused_ss(tp, tcfg, _t(past), _t(fut), coins=torch.ones(4, 6, 1),
-                                          **peers),
-    ):
-        with pytest.raises(NotImplementedError, match="stacked-ss-crossuser-10s"):
-            call()
+    jpeers = dict(other_future_n=_j(others), other_mask=_j(mask))
+    coins = np.ones((jcfg.h_out, 6, 1), np.float32)
+    if fn == "serve_fused":
+        ours = cross_user.serve_fused(tp, tcfg, _t(past), **peers)
+        ref = CU.serve_fused(jp, jcfg, _j(past), tile_b=8, **jpeers)
+        scan = CU.apply(jp, jcfg, _j(past), **jpeers)
+    elif fn == "apply_fused_tf":
+        ours = cross_user.apply_fused_tf(tp, tcfg, _t(past), _t(fut), residual_dtype=torch.float32,
+                                         **peers)
+        ref = CU.apply_fused_tf(jp, jcfg, _j(past), _j(fut), tile_b=8, **jpeers)
+        scan = CU.apply(jp, jcfg, _j(past), _j(fut), **jpeers)
+    else:
+        ours = cross_user.apply_fused_ss(tp, tcfg, _t(past), _t(fut), coins=_t(coins),
+                                         residual_dtype=torch.float32, **peers)
+        ref = CU._apply_fused_aligned(jp, jcfg, _j(past), _j(fut), context=None, coins=_j(coins),
+                                      tile_b=8, residual_dtype=jnp.float32, **jpeers)
+        scan = CU.apply(jp, jcfg, _j(past), _j(fut), **jpeers)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=FUSED_TOL)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(scan), atol=FUSED_TOL)
 
 
 def test_batch_extras_matches_jax():
@@ -502,8 +514,29 @@ def test_cli_train_eval_serve_bench_of_the_preset_on_cpu(tmp_path, capsys):
     assert sb["peers"] == 3 and sb["horizon"] == 30 and sb["viewers_per_sec"] > 0
 
 
-@pytest.mark.parametrize("cmd", [["eval", "--ckpt-dir", "nowhere"], ["serve-bench"], ["train"]])
-def test_cli_peer_align_raises(cmd):
-    with pytest.raises(SystemExit, match="stacked-ss-crossuser-10s"):
-        cli.main([cmd[0], "--preset", "stacked-ss-crossuser", "--device", "cpu", "--peer-align",
-                  *cmd[1:]])
+@pytest.mark.parametrize("cmd", ["eval", "serve-bench", "train"])
+def test_cli_peer_align(cmd, tmp_path, capsys):
+    """--peer-align sets model_peer_align, as the JAX CLI does: train runs
+    the lockstep tier, serve-bench serves through it, and eval refuses a
+    checkpoint trained without it (the model hash differs) and reads one
+    trained with it."""
+    base = ["--preset", "stacked-ss-crossuser", "--device", "cpu"]
+    if cmd == "serve-bench":
+        cli.main(["serve-bench", *base, "--peer-align", "--batch", "4", "--iters", "1"])
+        sb = _last_json(capsys.readouterr().out)
+        assert sb["peers"] == 4 and sb["horizon"] == 30 and sb["viewers_per_sec"] > 0
+        return
+    ck = str(tmp_path / "ck")
+    flags = [] if cmd == "eval" else ["--peer-align"]
+    cli.main(["train", *base, *flags, "--steps", "1", "--batch-size", "8", "--ckpt-dir", ck])
+    res = _last_json(capsys.readouterr().out)
+    assert res["step"] == 1 and np.isfinite(res["loss"])
+    ev_flags = ["--peer-align"] if cmd == "eval" else []
+    if cmd == "eval":  # trained without --peer-align: the model hash refuses the load
+        with pytest.raises(SystemExit, match="model-config"):
+            cli.main(["eval", *base, "--ckpt-dir", ck, *ev_flags])
+        return
+    cli.main(["eval", *base, "--ckpt-dir", ck, "--peer-align", "--json"])
+    assert _last_json(capsys.readouterr().out)["n_windows"] > 0
+    with pytest.raises(SystemExit, match="model-config"):
+        cli.main(["eval", *base, "--ckpt-dir", ck])

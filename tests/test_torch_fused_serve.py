@@ -70,9 +70,9 @@ def test_reference_matches_numpy_oracle():
 @pytest.mark.parametrize(
     "kw",
     [
-        # the static-context tier is ported in f32 only
+        # the static-context and lockstep-peer tiers are ported in f32 only
         {"context": torch.zeros(4, 8), "compute_dtype": torch.bfloat16},
-        {"peer_xs": torch.zeros(4, 2, 3, 3)},
+        {"peer_xs": torch.zeros(4, 2, 3, 3), "compute_dtype": torch.bfloat16},
         {"compute_dtype": torch.bfloat16},
         {"_probe": "mm"},
     ],

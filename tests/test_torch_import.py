@@ -22,11 +22,12 @@ loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "
 print(len(names), loaded, ",".join(names))
 """
 
-# the training slice's modules, beside the serving slice's, and the
-# cross_user and scheduled-sampling slice's
+# the training slice's modules, beside the serving slice's, the cross_user
+# and scheduled-sampling slice's, and the lockstep-peer slice's
 _TRAIN_SLICE = ("baselines", "checkpoint", "data", "evaluate", "losses",
                 "ops.lstm_train", "traces", "train")
 _CROSS_USER_SLICE = ("models.cross_user", "ops.lstm_ss")
+_PEER_ALIGN_SLICE = ("ops.lstm_align",)
 
 
 def test_port_imports_without_jax():
@@ -37,8 +38,8 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     count, loaded, names = proc.stdout.split(" ")
-    assert int(count) >= 22, proc.stdout  # every module of the package
+    assert int(count) >= 23, proc.stdout  # every module of the package
     assert loaded.strip() == "[]"
     names = names.strip().split(",")
-    for mod in _TRAIN_SLICE + _CROSS_USER_SLICE:
+    for mod in _TRAIN_SLICE + _CROSS_USER_SLICE + _PEER_ALIGN_SLICE:
         assert f"longterm360fov_tpu_torch.{mod}" in names

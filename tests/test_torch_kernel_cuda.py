@@ -14,7 +14,7 @@ import torch
 from longterm360fov_tpu_torch import oracle
 from longterm360fov_tpu_torch.models import seq2seq
 from longterm360fov_tpu_torch.models.cell import LSTMParams
-from longterm360fov_tpu_torch.ops import fused_lstm, lstm_ss, lstm_train
+from longterm360fov_tpu_torch.ops import fused_lstm, lstm_align, lstm_ss, lstm_train
 from longterm360fov_tpu_torch.params import params_from_numpy
 
 # the condition string is evaluated when the test runs, not at import
@@ -380,3 +380,164 @@ def test_ss_kernels_never_fall_back_on_card():
         lstm_ss.ss_fwd(*_ss_fwd_args(ps, a))
     with pytest.raises(ValueError, match="hidden % 32"):
         lstm_ss.kernel_rows(48, 1, 3, 0)
+
+
+# ------------------------------------------- the lockstep-peer tier of fused_serve
+# The same bound as the other serve tiers, 1e-4 on normalized outputs after
+# the whole horizon; the peer context alone 1e-5 (a bounded state, |h| < 1).
+
+
+def _peer_case(batch, k, t, seed, masked=True):
+    rng = np.random.default_rng(seed)
+    peer = _stack(rng, 3, 1)[0]
+    pxs = _cuda(rng, (batch, k, t, 3), 0.5)
+    m = (rng.random((batch, k)) < 0.6).astype(np.float32)
+    if masked:
+        m[0] = 0.0  # a row with every peer masked out
+    else:
+        m[:] = 1.0
+    w = torch.tensor(m / np.maximum(m.sum(1, keepdims=True), 1.0), device="cuda")
+    return peer, pxs, w
+
+
+@pytest.mark.parametrize("k", [7, 3, 8, 1])
+@pytest.mark.parametrize("batch", [1, 13, 4099])
+def test_peer_context_matches_plain(batch, k):
+    peer, pxs, w = _peer_case(batch, k, 20, seed=k)
+    before = fused_lstm.peer_context.launches
+    out = fused_lstm.peer_context(peer, pxs, w)
+    torch.cuda.synchronize()
+    assert fused_lstm.peer_context.launches == before + 1
+    ref = fused_lstm.peer_context_reference(peer, pxs, w)
+    assert out.shape == (batch, 20, 128) and (out - ref).abs().max().item() <= 1e-5
+    assert not out[0].any()
+
+
+@pytest.mark.parametrize("layers,k", [(1, 7), (2, 7), (2, 3)])
+@pytest.mark.parametrize("batch", [1, 257, 4099])
+def test_fused_serve_lockstep_tier_matches_plain(batch, layers, k):
+    rng = np.random.default_rng(layers + k)
+    enc, dec = _stack(rng, 3, layers), _stack(rng, 3 + 128, layers)
+    pw, pb = _cuda(rng, (128, 3), 0.1), _cuda(rng, (3,), 0.1)
+    x = _cuda(rng, (batch, 30, 3), 0.1)
+    peer, pxs, w = _peer_case(batch, k, 25, seed=layers)
+    before = (fused_lstm.fused_serve_peers.launches, fused_lstm.fused_serve.launches)
+    out = fused_lstm.fused_serve(enc, dec, pw, pb, x, 25, peer_params=peer, peer_xs=pxs, peer_w=w)
+    torch.cuda.synchronize()
+    assert (fused_lstm.fused_serve_peers.launches, fused_lstm.fused_serve.launches) == (before[0] + 1, before[1])
+    ref = fused_lstm.fused_serve_reference(enc, dec, pw, pb, x, 25, peer_params=peer, peer_xs=pxs, peer_w=w)
+    assert out.shape == (batch, 25, 3) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4
+    # the all-masked row is the zero-context model on the static tier
+    zero = fused_lstm.fused_serve(enc, dec, pw, pb, x[:1].contiguous(), 25,
+                                  context=torch.zeros(1, 128, device="cuda"))
+    assert (out[:1] - zero).abs().max().item() <= 1e-6
+
+
+def test_lockstep_tier_never_falls_back_on_card():
+    rng = np.random.default_rng(0)
+    enc, dec = _stack(rng, 3, 1), _stack(rng, 3 + 128, 1)
+    pw, pb = _cuda(rng, (128, 3)), _cuda(rng, (3,))
+    peer, pxs, w = _peer_case(4, 9, 3, seed=0)
+    with pytest.raises(ValueError, match="K = 9 peers"):
+        fused_lstm.fused_serve(enc, dec, pw, pb, _cuda(rng, (4, 5, 3)), 3, peer_params=peer,
+                               peer_xs=pxs, peer_w=w)
+    with pytest.raises(ValueError, match="span"):
+        fused_lstm.fused_serve(enc, dec, pw, pb, _cuda(rng, (4, 5, 3)), 4, peer_params=peer,
+                               peer_xs=pxs, peer_w=w)
+    with pytest.raises(ValueError, match="K = 9 peers"):
+        lstm_align.peer_fwd(peer, pxs.reshape(36, 3, 3).contiguous(), w)
+
+
+# ------------------------------------------------------- aligned_ss_decode kernels
+# The bounds of the ss_decode kernels: forward 1e-5 (or one bf16 step on bf16
+# residuals), backward and reductions 1e-4 of max|plain| per output.
+
+
+def _aligned_case(batch, layers, k, coins, seed, t=30, masked=True):
+    ps, a = _ss_case(batch, layers, 128, coins, seed, t)
+    peer, pxs, w = _peer_case(batch, k, t, seed, masked)
+    a.update(peer=peer, pwt=w, pxs=pxs.reshape(batch * k, t, 3).contiguous())
+    return ps, a
+
+
+def _aligned_check(batch, layers, k, rd, coins, seed=0):
+    ps, a = _aligned_case(batch, layers, k, coins, seed)
+    wrappers = (lstm_align.peer_fwd, lstm_align.dec_fwd, lstm_align.dec_bwd, lstm_align.peer_bwd,
+                lstm_align.dec_dw, lstm_align.peer_dw)
+    before = [f.launches for f in wrappers]
+    php, pcp, ctx = lstm_align.peer_fwd(a["peer"], a["pxs"], a["pwt"], rd)
+    php_p, pcp_p, ctx_p = lstm_align._peer_fwd_reference(a["peer"], a["pxs"], a["pwt"], rd)
+    args = (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], ctx_p)
+    ys, res = lstm_align.dec_fwd(*args, rd)
+    ys_p, res_p = lstm_ss._forward_reference(*args, rd)
+    torch.cuda.synchronize()
+    assert (ctx - ctx_p).abs().max().item() <= 1e-5 and (ys - ys_p).abs().max().item() <= 1e-5
+    for x, y in zip([php, pcp] + res.hs + res.cs + res.gs, [php_p, pcp_p] + res_p.hs + res_p.cs + res_p.gs):
+        assert x.dtype == rd and x.shape == y.shape
+        tol = 1e-5 if rd == torch.float32 else 1e-5 + 2.0 ** -7 * y.float().abs()
+        assert ((x.float() - y.float()).abs() <= tol).all()
+    bw = lstm_align.dec_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
+    bw_p = lstm_ss._bwd_recurrence_reference(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128,
+                                             step_ctx=True)
+    pb = lstm_align.peer_bwd(a["peer"], a["pxs"], a["pwt"], php, pcp, bw_p[6])
+    pb_p = lstm_align._peer_bwd_reference(a["peer"], a["pxs"], a["pwt"], php, pcp, bw_p[6])
+    dw_in = (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["pwt"], php, ys, res, bw_p[0])
+    dps, dps_p = lstm_align.dec_dw(*dw_in), lstm_align._dw_reference(*dw_in)
+    pdw = lstm_align.peer_dw(a["peer"], a["pxs"], php, pb_p[0])
+    pdw_p = lstm_align._peer_dw_reference(a["peer"], a["pxs"], php, pb_p[0])
+    torch.cuda.synchronize()
+    pairs = list(zip(bw[0], bw_p[0])) + list(zip(bw[1:], bw_p[1:])) + list(zip(pb, pb_p))
+    pairs += [(x.w, y.w) for x, y in zip(dps, dps_p)] + [(x.b, y.b) for x, y in zip(dps, dps_p)]
+    pairs += [(pdw.w, pdw_p.w), (pdw.b, pdw_p.b)]
+    for x, y in pairs:
+        assert x.shape == y.shape and torch.isfinite(x).all()
+        assert _rel(x, y) <= 1e-4 if y.abs().max() > 0 else not x.any()
+    assert [f.launches for f in wrappers] == [n + 1 for n in before]
+
+
+@pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layers,k", [(1, 3), (2, 7)])
+@pytest.mark.parametrize("batch", [1, 257, 4099])
+def test_aligned_kernels_match_plain(batch, layers, k, rd):
+    _aligned_check(batch, layers, k, rd, "bernoulli", seed=layers)
+
+
+@pytest.mark.parametrize("coins", ["1", "0"])
+def test_aligned_kernels_match_plain_at_coin_extremes(coins):
+    _aligned_check(1000, 2, 7, torch.bfloat16, coins, seed=3)
+
+
+def test_aligned_ss_decode_autograd_matches_the_step_loop():
+    """The autograd function through every kernel against autograd of the
+    step loop, on every input that takes a gradient (f32 residuals)."""
+    ps, a = _aligned_case(301, 2, 7, "bernoulli", seed=9)
+    pxs_tm = a["pxs"].reshape(301, 7, 30, 3).permute(2, 0, 1, 3).reshape(30, 301, 21).contiguous()
+    grads = {}
+    for name, fn in (("kernels", lstm_align.aligned_ss_decode),
+                     ("loop", lstm_align.aligned_ss_decode_reference)):
+        leaves = [t.clone().requires_grad_(True) for p in ps for t in p]
+        ins = [x.clone().requires_grad_(True) for x in (a["proj_w"], a["proj_b"], *a["peer"], a["h0"],
+                                                         a["c0"], a["y0"], a["teacher"], pxs_tm, a["pwt"])]
+        params = [LSTMParams(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
+        out = fn(params, ins[0], ins[1], LSTMParams(ins[2], ins[3]), *ins[4:9], (a["coins"], ins[9]))
+        grads[name] = (out, torch.autograd.grad((out * a["dys"]).sum(), leaves + ins))
+    assert (grads["kernels"][0] - grads["loop"][0]).abs().max().item() <= 1e-5
+    for x, y in zip(grads["kernels"][1], grads["loop"][1]):
+        assert _rel(x, y) <= 1e-4
+
+
+def test_aligned_backward_is_deterministic():
+    ps, a = _aligned_case(1000, 2, 7, "bernoulli", seed=10)
+    pxs_tm = a["pxs"].reshape(1000, 7, 30, 3).permute(2, 0, 1, 3).reshape(30, 1000, 21).contiguous()
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for p in ps for t in p] + [
+            t.clone().requires_grad_(True) for t in a["peer"]]
+        params = [LSTMParams(leaves[i], leaves[i + 1]) for i in range(0, 2 * len(ps), 2)]
+        out = lstm_align.aligned_ss_decode(params, a["proj_w"], a["proj_b"], LSTMParams(*leaves[-2:]),
+                                           a["h0"], a["c0"], a["y0"], a["teacher"], pxs_tm,
+                                           (a["coins"], a["pwt"]), torch.bfloat16)
+        runs.append(torch.autograd.grad((out * a["dys"]).sum(), leaves))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)

@@ -29,7 +29,7 @@ from longterm360fov_tpu import train as jax_train
 from longterm360fov_tpu.config import ExperimentConfig as JaxExperimentConfig
 from longterm360fov_tpu.models import seq2seq as jax_seq2seq
 from longterm360fov_tpu_torch import baselines, checkpoint, cli, data, evaluate, losses, traces, train
-from longterm360fov_tpu_torch.config import ExperimentConfig
+from longterm360fov_tpu_torch.config import ExperimentConfig, get_preset
 from longterm360fov_tpu_torch.models import seq2seq
 from longterm360fov_tpu_torch.params import params_from_numpy, tree_leaves
 
@@ -386,13 +386,30 @@ def test_cli_train_reads_jax_prepared_data(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,match", [
     (["--data-parallel"], "parallelism"), (["--seq-parallel", "2"], "parallelism"),
-    (["--pipeline-parallel", "2"], "parallelism"), (["--peer-align"], "cross_user"),
+    (["--pipeline-parallel", "2"], "parallelism"),
     (["--train-compute", "bfloat16"], "bf16-compute"), (["--bf16"], "bf16-compute"),
     (["--tb-dir", "tb"], "TCP daemon and CLI"),
 ])
 def test_cli_train_unported_flags_raise(flag, match):
     with pytest.raises(SystemExit, match=match):
         cli.main(["train", "--preset", "seq2seq-tf-30", "--device", "cpu", *flag])
+
+
+def test_cli_train_peer_align_sets_the_model_field(monkeypatch):
+    """--peer-align is ported: it sets model_peer_align (part of the model
+    hash), as the JAX CLI's does; on a family without peers it changes
+    nothing else."""
+    seen = {}
+
+    def fake_loop(cfg, *a, **k):
+        seen["cfg"] = cfg
+        return None, []
+
+    monkeypatch.setattr(train, "train_loop", fake_loop)
+    cli.main(["train", "--preset", "seq2seq-tf-30", "--device", "cpu", "--peer-align", "--steps", "1"])
+    assert seen["cfg"].model.peer_align
+    assert seen["cfg"].model_hash() == get_preset("seq2seq-tf-30", model_peer_align=True).model_hash()
+    assert seen["cfg"].model_hash() != get_preset("seq2seq-tf-30").model_hash()
 
 
 def test_cli_eval_refuses_another_architecture(tmp_path, capsys):
