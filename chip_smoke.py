@@ -18,7 +18,10 @@ one line each or more:
    the serve kernel with a per-step context) and the six
    ``aligned_ss_decode`` kernels (100 + 100 steps, C = 128, K = 7 and 3
    peers with a row whose every peer is masked, 1 and 2 layers, both
-   residual types, the three coin kinds);
+   residual types, the three coin kinds); the static-context ``fused_serve``
+   and the ``ss_decode`` kernels at video-fusion's C = 64; ``conv_resize`` at
+   five shapes (the JAX suite's, a clip at the feature defaults, the fusion
+   maps mode, upsampling, odd sizes);
 4. the ``seq2seq-tf-30`` serving main path: ``serving.make_serve_fn`` behind
    a ``DynamicBatcher`` answers 64 concurrent single-viewer requests and one
    bulk request; every answer equals the direct batched call and the numpy
@@ -51,7 +54,26 @@ one line each or more:
 9. the ``stacked-ss-crossuser-10s`` training main path: ``train.train_loop``
    at B = 4096 through ``aligned_ss_decode`` (peers and decoder) and
    ``lstm_seq_states`` (encoder), as in 7, and the aligned kernels alone
-   against plain and cuDNN/cuBLAS.
+   against plain and cuDNN/cuBLAS;
+10. the feature path: two synthetic uint8 clips (1200 frames of 480 x 960,
+   a panning textured scene from the seed) through ``cli extract-features
+   --device cuda`` (two ``conv_resize`` launches a clip), checked against
+   the port's CPU path on a clip's first frames, then ``prepare-data
+   --features``; a blocky clip's features and saliency, card against CPU,
+   reported and not gated (ill-conditioned there); frames/s of
+   ``extract_clip_features`` with and without the host→card copy, and at
+   960 x 1920 on 240 frames made on the card; ``conv_resize`` alone against
+   plain and ``F.interpolate`` + ``F.conv2d``;
+11. the ``video-fusion`` serving main path: the batcher with ``features`` in
+   every request (a request without them raises) in front of the
+   static-context ``fused_serve`` at C = 64, every answer against the port's
+   plain path on the CPU and the numpy oracle given the same context; the
+   maps mode (64 x 128 maps through ``conv_resize``) against the CPU plain
+   path; serve-bench at B = 16384 and 65536; a profile of one call;
+12. the ``video-fusion`` training main path: ``train.train_loop`` at
+   B = 4096 on the windows of 10 through ``lstm_seq_states`` and
+   ``ss_decode`` at C = 64, as in 7; the step's speed and profile; one
+   maps-mode step, whose conv leaves must get a gradient.
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -63,6 +85,7 @@ over the memory rate), and last the contract line
 """
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -74,14 +97,16 @@ import torch
 
 from longterm360fov_tpu_torch import checkpoint, cli, data, infer, oracle, serving, traces, train, windows
 from longterm360fov_tpu_torch.config import get_preset
-from longterm360fov_tpu_torch.models import cross_user, get_family
+from longterm360fov_tpu_torch.features import equirect
+from longterm360fov_tpu_torch.models import cross_user, fusion, get_family
 from longterm360fov_tpu_torch.models.cell import LSTMParams
-from longterm360fov_tpu_torch.ops import _build, fused_lstm, lstm_align, lstm_ss, lstm_train
+from longterm360fov_tpu_torch.ops import _build, conv_resize, fused_lstm, lstm_align, lstm_ss, lstm_train
 from longterm360fov_tpu_torch.params import params_from_numpy, tree_leaves
 
 PRESET = "seq2seq-tf-30"
 CU_PRESET = "stacked-ss-crossuser"
 CU10_PRESET = "stacked-ss-crossuser-10s"
+FU_PRESET = "video-fusion"
 KERNEL_TOL = 1e-4  # serve kernel vs plain, normalized outputs, f32 after 60 steps
 ORACLE_TOL = 1e-4  # batcher answers vs the numpy oracle or the CPU plain path, unit xyz
 # encode kernel vs plain: exact f32 FMAs in another order over 30 steps of a
@@ -110,9 +135,21 @@ SERVE_SRC = "longterm360fov_tpu_torch/csrc/fused_serve.cu"
 LSTM_SRC = "longterm360fov_tpu_torch/csrc/lstm_train.cu"
 SS_SRC = "longterm360fov_tpu_torch/csrc/lstm_ss.cu"
 ALIGN_SRC = "longterm360fov_tpu_torch/csrc/lstm_align.cu"
+CONV_SRC = "longterm360fov_tpu_torch/csrc/conv_resize.cu"
 S2S_SERVE, S2S_TRAIN = "serve seq2seq-tf-30", "train seq2seq-tf-30"
 CU_SERVE, CU_TRAIN = "serve stacked-ss-crossuser", "train stacked-ss-crossuser"
 CU10_SERVE, CU10_TRAIN = "serve stacked-ss-crossuser-10s", "train stacked-ss-crossuser-10s"
+FE_PATH, FU_SERVE, FU_TRAIN = "features video-fusion", "serve video-fusion", "train video-fusion"
+# conv_resize vs plain: 1e-5 of max|plain|. The kernel sums the resize's two
+# non-zero taps a row where the einsum sums every term (its zeros exactly),
+# and the K·K conv taps in another order than cuDNN: a few ulps.
+CONV_REL_TOL = 1e-5
+# features of the card's pipeline against the port's CPU path on the same
+# frames: cuFFT and pocketfft sum in different orders and the log-amplitude
+# amplifies the difference (1e-5 on saliency maps at 48 x 96, the CPU tests'
+# bound against JAX); 1e-4 of max|CPU| on the pooled features
+FEAT_REL_TOL = 1e-4
+CLIP_T, CLIP_H, CLIP_W = 1200, 480, 960  # the synthetic clips: as long as the traces
 ALIGN_FWD, ALIGN_BWD = "longterm360fov_tpu/ops/lstm_align.py:244", "longterm360fov_tpu/ops/lstm_align.py:570"
 # one entry per kernel: "path" is the main path whose run gives its launches
 KERNELS = [
@@ -135,6 +172,7 @@ KERNELS = [
     ("aligned_peer_bwd", ALIGN_SRC, ALIGN_BWD, lstm_align.peer_bwd, CU10_TRAIN),
     ("aligned_dec_dw", ALIGN_SRC, ALIGN_BWD, lstm_align.dec_dw, CU10_TRAIN),
     ("aligned_peer_dw", ALIGN_SRC, ALIGN_BWD, lstm_align.peer_dw, CU10_TRAIN),
+    ("conv_resize", CONV_SRC, "longterm360fov_tpu/ops/conv_resize.py:75", conv_resize.fused_conv_resize, FE_PATH),
 ]
 WRAPPERS = {name: wrapper for name, _, _, wrapper, _ in KERNELS}
 ERRS = {name: 0.0 for name in WRAPPERS}  # max abs error vs plain over every check
@@ -143,6 +181,14 @@ TIMES = {}  # kernel name -> {"ms", "plain_ms", "library_ms", "bound_ms", "bound
 
 def note_err(name, err):
     ERRS[name] = max(ERRS[name], float(err))
+
+
+START = time.perf_counter()
+
+
+def phase(label):
+    """One line at the start of each phase: the script's time so far."""
+    print(f"[{time.perf_counter() - START:.1f} s] phase {label}", flush=True)
 
 
 def unit_pasts(rng, n, h_in):
@@ -226,7 +272,16 @@ def stack(rng, dev, in0, layers, h=128):
 
 
 def randn(rng, dev, shape, scale=1.0):
-    return torch.tensor(rng.normal(size=shape).astype(np.float32) * scale, device=dev)
+    """N(0, scale²) drawn on ``dev`` by a generator seeded from ``rng``: the
+    large inputs of the checks and timings are not drawn on the host."""
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**62)))
+    return torch.randn(shape, generator=gen, device=dev) * scale
+
+
+def unit_rows(rng, dev, shape):
+    """Unit 3-vectors, (*shape, 3), drawn on ``dev`` as :func:`randn`."""
+    v = randn(rng, dev, (*shape, 3))
+    return v / v.norm(dim=-1, keepdim=True)
 
 
 def family_fns(fam, **kw):
@@ -248,7 +303,7 @@ def check_serve(dev, batch, layers, ctx_dim, seed, t=30):
     rng = np.random.default_rng(seed)
     enc, dec = stack(rng, dev, 3, layers), stack(rng, dev, 3 + ctx_dim, layers)
     pw, pb = randn(rng, dev, (128, 3), 0.1), randn(rng, dev, (3,), 0.1)
-    past = torch.as_tensor(unit_pasts(rng, batch, t), device=dev)
+    past = unit_rows(rng, dev, (batch, t))
     past_n = windows.normalize_window(past)[0].contiguous()
     ctx = randn(rng, dev, (batch, ctx_dim)) if ctx_dim else None
     out = fused_lstm.fused_serve(enc, dec, pw, pb, past_n, t, context=ctx)
@@ -396,9 +451,8 @@ def peer_inputs(rng, dev, past_n, k, t):
     (as ``batch_extras`` gives them), and mask weights ``mask / max(Σ mask,
     1)`` with row 0 all masked."""
     batch = past_n.shape[0]
-    anchor = past_n.new_tensor(unit_pasts(rng, batch, 1))  # (B, 1, 3)
-    pxs = torch.as_tensor(unit_pasts(rng, batch * k, t), device=dev).reshape(batch, k, t, 3)
-    pxs = (pxs - anchor[:, None]).contiguous()
+    anchor = unit_rows(rng, dev, (batch, 1))
+    pxs = (unit_rows(rng, dev, (batch, k, t)) - anchor[:, None]).contiguous()
     m = (rng.random((batch, k)) < 0.6).astype(np.float32)
     m[0] = 0.0
     w = torch.tensor(m / np.maximum(m.sum(1, keepdims=True), 1.0), device=dev)
@@ -412,7 +466,7 @@ def check_peer_serve(dev, batch, layers, k, seed, t=100):
     rng = np.random.default_rng(seed)
     enc, dec, peer = stack(rng, dev, 3, layers), stack(rng, dev, 3 + 128, layers), stack(rng, dev, 3, 1)[0]
     pw, pb = randn(rng, dev, (128, 3), 0.1), randn(rng, dev, (3,), 0.1)
-    past_n = windows.normalize_window(torch.as_tensor(unit_pasts(rng, batch, t), device=dev))[0].contiguous()
+    past_n = windows.normalize_window(unit_rows(rng, dev, (batch, t)))[0].contiguous()
     pxs, w = peer_inputs(rng, dev, past_n, k, t)
     ctx = fused_lstm.peer_context(peer, pxs, w)
     ctx_p = fused_lstm.peer_context_reference(peer, pxs, w)
@@ -480,10 +534,25 @@ def check_aligned_kernels(dev, batch, layers, k, rd, coins, seed):
     return errs
 
 
+def check_conv_resize(dev, shape, out_hw, c, seed):
+    """conv_resize against conv_resize_reference on the same inputs (frames
+    N(0, 1), filters N(0, 1/9), bias N(0, 0.01)) → max abs error."""
+    rng = np.random.default_rng(seed)
+    frames, kernels, bias = randn(rng, dev, shape), randn(rng, dev, (c, 3, 3), 1 / 3), randn(rng, dev, (c,), 0.1)
+    out = conv_resize.fused_conv_resize(frames, out_hw, kernels, bias)
+    torch.cuda.synchronize()
+    ref = conv_resize.conv_resize_reference(frames, out_hw, kernels, bias)
+    err = (out - ref).abs().max().item()
+    if out.shape != ref.shape or not torch.isfinite(out).all() or not err <= CONV_REL_TOL * ref.abs().max().item():
+        raise AssertionError(f"conv_resize disagrees with its plain version ({shape} → {out_hw}, C={c}): {err:.3e}")
+    note_err("conv_resize", err)
+    return err
+
+
 def check_all_kernels(dev):
     """Phase 3."""
     errs = {}
-    for b, l, c in ((4099, 1, 0), (4099, 2, 0), (4099, 2, 128)):
+    for b, l, c in ((4099, 1, 0), (4099, 2, 0), (4099, 2, 128), (4099, 2, 64)):
         errs[f"B={b} L={l} C={c}"] = check_serve(dev, b, l, c, seed=l)
     print(f"fused_serve vs plain, hidden 128, 30+30 steps: max_abs_err {json.dumps(errs)} "
           f"(tolerance {KERNEL_TOL})", flush=True)
@@ -500,7 +569,7 @@ def check_all_kernels(dev):
           f"of max|plain|)", flush=True)
     errs = {}
     for batch in (4099, TRAIN_B):
-        for layers, ctx_dim in ((1, 0), (2, 128)):
+        for layers, ctx_dim in ((1, 0), (2, 128), (2, 64)):
             for rd in (torch.float32, torch.bfloat16):
                 for coins in ("bernoulli", "1", "0"):
                     key = f"B={batch} L={layers} C={ctx_dim} {str(rd)[6:]} coins={coins}"
@@ -522,6 +591,12 @@ def check_all_kernels(dev):
     print(f"aligned_ss_decode kernels vs plain, hidden 128, C=128, T=100, D=3, max_abs_err {json.dumps(errs)} "
           f"(forward {FWD_TOL}, plus one bf16 step on bf16 residuals; backward and reductions "
           f"{BWD_REL_TOL} of max|plain| per output)", flush=True)
+    errs = {f"{s[0]}x{s[1]}x{s[2]}->{hw[0]}x{hw[1]} C={c}": check_conv_resize(dev, s, hw, c, seed=i)
+            for i, (s, hw, c) in enumerate((((3, 48, 96), (16, 32), 4), ((64, 960, 1920), (32, 64), 8),
+                                            ((4099, 64, 128), (16, 32), 4), ((5, 12, 20), (16, 32), 4),
+                                            ((7, 961, 1917), (32, 64), 8)))}
+    print(f"conv_resize vs plain, K=3: max_abs_err {json.dumps(errs)} (tolerance {CONV_REL_TOL} of max|plain|)",
+          flush=True)
 
 
 # --------------------------------------------------------------- phase 4: seq2seq-tf-30 serving
@@ -600,9 +675,8 @@ def serve_call(cfg, params, dev, batch):
     random unit-vector pasts and peer futures, as ``cli.serve_bench`` draws
     them."""
     m, rng = cfg.model, np.random.default_rng(0)
-    x = {"past": torch.as_tensor(unit_pasts(rng, batch, m.h_in), device=dev),
-         "other_future": torch.as_tensor(unit_pasts(rng, batch * cfg.n_other_users, m.h_out).reshape(
-             batch, cfg.n_other_users, m.h_out, 3), device=dev)}
+    x = {"past": unit_rows(rng, dev, (batch, m.h_in)),
+         "other_future": unit_rows(rng, dev, (batch, cfg.n_other_users, m.h_out))}
     serve = infer.make_predict_fn(params, cfg, device=dev, with_tiles=True, impl="fused")
     return lambda: serve(x)
 
@@ -612,12 +686,13 @@ def serve_flop(batch, t_in, t_out, enc_ins, dec_ins, hidden, d):
             + 2 * batch * t_out * hidden * d)
 
 
-def time_serve_kernel(name, dev, params, cfg, batch, iters, ctx_dim, smi):
+def time_serve_kernel(name, dev, params, cfg, batch, iters, ctx_dim, smi, keep=True):
     """One serve kernel alone against its plain version at a main-path batch:
-    checked on these inputs first, then timed in turns. No single PyTorch
-    call computes an autoregressive decode with feedback: no library time."""
+    checked on these inputs first, then timed in turns; ``keep``: its numbers
+    go to the kernels line. No single PyTorch call computes an
+    autoregressive decode with feedback: no library time."""
     rng = np.random.default_rng(1)
-    x_n = windows.normalize_window(torch.as_tensor(unit_pasts(rng, batch, cfg.model.h_in), device=dev))[0]
+    x_n = windows.normalize_window(unit_rows(rng, dev, (batch, cfg.model.h_in)))[0]
     x_n = x_n.contiguous()
     ctx = randn(rng, dev, (batch, ctx_dim)) if ctx_dim else None
     args = (params["encoder"], params["decoder"], params["proj"]["w"], params["proj"]["b"], x_n, cfg.model.h_out)
@@ -634,11 +709,12 @@ def time_serve_kernel(name, dev, params, cfg, batch, iters, ctx_dim, smi):
     m = cfg.model
     flop = serve_flop(batch, m.h_in, m.h_out, [m.d] + [m.hidden] * (m.layers - 1),
                       [m.d + ctx_dim] + [m.hidden] * (m.layers - 1), m.hidden, m.d)
-    record(name, ms, flop, [x_n, ctx, params["proj"]["w"], params["proj"]["b"]]
-           + [t for p in ps for t in p], [out])
+    reads = [x_n, ctx, params["proj"]["w"], params["proj"]["b"]] + [t for p in ps for t in p]
+    b_ms, b_by = bound(flop, reads, [out])
+    if keep:
+        record(name, ms, flop, reads, [out])
     print(f"{name} alone (B={batch}, L={m.layers}, C={ctx_dim}; ms, CUDA events, {smi}): {json.dumps(ms)}; "
-          f"bound {TIMES[name]['bound_ms']:.3f} ms by {TIMES[name]['bound_by']}; max_abs_err vs plain "
-          f"{err:.3e} (tolerance {KERNEL_TOL})", flush=True)
+          f"bound {b_ms:.3f} ms by {b_by}; max_abs_err vs plain {err:.3e} (tolerance {KERNEL_TOL})", flush=True)
 
 
 # --------------------------------------------------------------- training paths
@@ -652,7 +728,7 @@ def synthetic_windows(cfg):
     return data.windows_from_store(store, cfg.model.h_in, cfg.model.h_out, stride=cfg.stride, n_other_users=k)
 
 
-def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL):
+def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL, windows_=None):
     """train_loop through the kernels with evaluation and checkpoints, then
     a resume from the middle checkpoint, which must equal the uninterrupted
     run (the scheduled-sampling coins are drawn from (seed, step), so they
@@ -660,9 +736,9 @@ def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL):
     plain autograd, from the trained state on a fresh batch with the same
     coins, within ``step_tol`` per residual dtype. ``also``: the kernels of
     other rows the path must launch (its evaluation's serving kernels, the
-    encoder's)."""
+    encoder's); ``windows_`` (train, test), else the synthetic store's."""
     fam = get_family(cfg.model_family)
-    train_d, test_d = synthetic_windows(cfg)
+    train_d, test_d = windows_ or synthetic_windows(cfg)
     run = dict(device=dev, eval_data=test_d, **family_fns(fam))
     init = train.init_state(cfg, fam.init, train.make_optimizer(cfg), device=dev)
     with tempfile.TemporaryDirectory() as ck_dir:
@@ -721,7 +797,9 @@ def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL):
         rel = step_tol[str(rd)[6:]]
         (l_k, _), g_k = train.make_grad_fn(cfg, fam.apply, **family_fns(fam, residual_dtype=rd))(
             full.params, batch, gen(), tp)
-        g_err = max((a - b).abs().max().item() / b.abs().max().item()
+        # a leaf the loss does not reach (video-fusion's conv stack in the
+        # features mode) has a zero gradient on both sides: its error counts absolute
+        g_err = max((a - b).abs().max().item() / (b.abs().max().item() or 1.0)
                     for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)))
         l_err = abs(l_k.item() - l_p.item()) / abs(l_p.item())
         if not (g_err <= rel and l_err <= rel):
@@ -741,7 +819,7 @@ def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL):
     return full, train_d, launches
 
 
-def time_training(cfg, state, train_d, path, smi, plain_iters):
+def time_training(cfg, state, train_d, path, smi, plain_iters, kernel_iters=20):
     """The fast train step (the loop's step between logged steps), kernels
     against plain autograd, in turns plain, kernel, kernel, plain."""
     fam = get_family(cfg.model_family)
@@ -761,7 +839,7 @@ def time_training(cfg, state, train_d, path, smi, plain_iters):
             st[which] = steps[which](st[which], batch)[0]
         return one
 
-    ms = in_turns({w: stepper(w) for w in steps}, {"plain": plain_iters, "kernel": 20})
+    ms = in_turns({w: stepper(w) for w in steps}, {"plain": plain_iters, "kernel": kernel_iters})
     out = {w: {"ms_per_step": ms[w], "steps_per_sec": 1e3 / ms[w],
                "windows_per_sec": cfg.batch_size * 1e3 / ms[w]} for w in ms}
     print(f"{path}: train step (B={cfg.batch_size}, fast step, CUDA events, {smi}): {json.dumps(out)}", flush=True)
@@ -929,7 +1007,7 @@ def time_encode_kernel(dev, rows, smi, with_library):
     The last call's numbers go to the kernels line."""
     rng = np.random.default_rng(2)
     ps = stack(rng, dev, 3, 1)
-    xs = torch.as_tensor(unit_pasts(rng, rows, 30), device=dev)
+    xs = unit_rows(rng, dev, (rows, 30))
     out = fused_lstm.fused_encode(ps, xs)
     err = (out - fused_lstm.fused_encode_reference(ps, xs)).abs().max().item()
     if not err <= ENC_TOL:
@@ -988,7 +1066,7 @@ def time_peer_serve(dev, params, cfg, batch, iters, smi):
     call computes the decode with feedback: no library time."""
     m = cfg.model
     rng = np.random.default_rng(1)
-    x_n = windows.normalize_window(torch.as_tensor(unit_pasts(rng, batch, m.h_in), device=dev))[0]
+    x_n = windows.normalize_window(unit_rows(rng, dev, (batch, m.h_in)))[0]
     x_n = x_n.contiguous()
     pxs, w = peer_inputs(rng, dev, x_n, cfg.n_other_users, m.h_out)
     peer = params["peer_encoder"]
@@ -1197,6 +1275,270 @@ def time_aligned_kernels(dev, smi):
           f"rows, one cuBLAS bmm / matmul; {smi}): {json.dumps(out)}", flush=True)
 
 
+# --------------------------------------------------------------- video-fusion: features
+
+
+def synthetic_clip(seed, frames=CLIP_T, noise=8):
+    """A panning textured scene, (frames, CLIP_H, CLIP_W, 3) uint8 from the
+    seed: an 8x upsampled random texture plus per-pixel noise in [-noise,
+    noise] grey levels, rolled 4 pixels a frame. Without the noise the
+    spectrum has exact zeros whose log-amplitude is FFT rounding noise and
+    saliency is ill-conditioned (ROADMAP.md, Known divergences): the gated
+    check runs on the noisy clip, and a blocky one is only reported."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(0, 256, (CLIP_H // 8, CLIP_W // 8, 3)).repeat(8, 0).repeat(8, 1)
+    base = np.clip(blocks + rng.integers(-noise, noise + 1, blocks.shape), 0, 255).astype(np.uint8)
+    clip = np.empty((frames, CLIP_H, CLIP_W, 3), np.uint8)
+    for t in range(frames):
+        clip[t] = np.roll(base, 4 * t, axis=1)
+    return clip
+
+
+def conv_resize_work(shape, out_hw, c, k=3):
+    """(FLOP, bytes) of the conv_resize function: the source rows and columns
+    some tap touches (read once), the output written once, the filters; 9
+    FLOP a resized pixel and 2·K·K + 2 per output value."""
+    b, src_h, src_w = shape
+    h, w = out_hw
+    rows = len(np.unique(conv_resize.resize_taps(h, src_h)[0]))
+    cols = len(np.unique(conv_resize.resize_taps(w, src_w)[0]))
+    nbytes = 4 * (b * rows * cols + b * c * h * w + c * (k * k + 1))
+    return b * h * w * (9 + c * (2 * k * k + 2)), nbytes
+
+
+def time_conv_resize(dev, shape, out_hw, c, smi, keep):
+    """conv_resize alone at a main-path shape, checked first, against its
+    plain version and the library's F.interpolate (bilinear,
+    align_corners=False) + F.conv2d + bias + ReLU, in turns; ``keep``: its
+    numbers go to the kernels line."""
+    rng = np.random.default_rng(12)
+    frames = torch.rand(shape, device=dev)
+    kernels, bias = randn(rng, dev, (c, 3, 3), 1 / 3), randn(rng, dev, (c,), 0.1)
+
+    def library():
+        small = torch.nn.functional.interpolate(frames[:, None], size=out_hw, mode="bilinear",
+                                                align_corners=False, antialias=False)
+        return torch.relu(torch.nn.functional.conv2d(small, kernels[:, None], padding=1) + bias[None, :, None, None])
+
+    out = conv_resize.fused_conv_resize(frames, out_hw, kernels, bias)
+    ref = conv_resize.conv_resize_reference(frames, out_hw, kernels, bias)
+    err, lib_err = (out - ref).abs().max().item(), (library() - ref).abs().max().item()
+    if not err <= CONV_REL_TOL * ref.abs().max().item():
+        raise AssertionError(f"conv_resize at {shape} disagrees with its plain version: {err:.3e}")
+    note_err("conv_resize", err)
+    ms = in_turns({"plain": lambda: conv_resize.conv_resize_reference(frames, out_hw, kernels, bias),
+                   "kernel": lambda: conv_resize.fused_conv_resize(frames, out_hw, kernels, bias),
+                   "library": library}, {"plain": 10, "kernel": 50, "library": 50})
+    flop, nbytes = conv_resize_work(shape, out_hw, c)
+    ops_ms, bytes_ms = flop / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    if keep:
+        TIMES["conv_resize"] = {"ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
+                                "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"conv_resize alone ({shape[0]} x {shape[1]}x{shape[2]} -> {out_hw[0]}x{out_hw[1]}, C={c}, K=3; ms, CUDA "
+          f"events; library F.interpolate + F.conv2d; {smi}): {json.dumps(ms)}; bound {bound_ms:.5f} ms by "
+          f"{bound_by} ({nbytes / 1e6:.2f} MB, {flop / 1e9:.3f} GFLOP); max_abs_err vs plain {err:.3e}, "
+          f"library vs plain {lib_err:.3e}", flush=True)
+    # a call of a few µs of device work is host-bound under CUDA events: the
+    # profiler gives the device's own time of the kernel and of the library
+    for name, fn in (("kernel", lambda: conv_resize.fused_conv_resize(frames, out_hw, kernels, bias)),
+                     ("library", library)):
+        profile_device(f"conv_resize {name} at {shape[0]} x {shape[1]}x{shape[2]}", fn, 20, smi)
+
+
+def blocky_report(dev, params_cpu):
+    """Reported, not gated: the card against the CPU path on a blocky clip
+    (no per-pixel noise), where f32 saliency is ill-conditioned; beside it
+    the CPU's own f32 against its f64 reading of the same saliency."""
+    clip = synthetic_clip(2, frames=8, noise=0)
+    params = {k: v.to(dev) for k, v in params_cpu.items()}
+    with torch.inference_mode():
+        card = equirect.extract_clip_features(params, clip).cpu().numpy()
+        cpu = equirect.extract_clip_features(params_cpu, clip).numpy()
+        luma = equirect.luminance(torch.as_tensor(clip))
+        sal_card = equirect.saliency_map(luma.to(dev)).cpu().double()
+        sal_cpu, sal_64 = equirect.saliency_map(luma).double(), equirect.saliency_map(luma.double())
+    if not np.isfinite(card).all():
+        raise AssertionError("non-finite features on the blocky clip")
+    print(f"{FE_PATH}: blocky clip (8 frames, no per-pixel noise; not gated, ill-conditioned): features max "
+          f"|card - CPU| {np.abs(card - cpu).max():.3e} of max|CPU| {np.abs(cpu).max():.3e}; saliency max "
+          f"|card - CPU| {(sal_card - sal_cpu).abs().max().item():.3e}, |CPU f32 - CPU f64| "
+          f"{(sal_cpu - sal_64).abs().max().item():.3e}, |card - CPU f64| {(sal_card - sal_64).abs().max().item():.3e}",
+          flush=True)
+
+
+def frames_per_s(dev, params, clip_host, label, smi):
+    """frames/s of one extract_clip_features pass over a clip on the card
+    (CUDA events, after one pass that warms the shape's FFT plans) and, for
+    a host clip, over the host array with its copy (host clock)."""
+    clip = torch.as_tensor(clip_host, device=dev) if isinstance(clip_host, np.ndarray) else clip_host
+    n = clip.shape[0]
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms_card = cuda_ms(lambda: equirect.extract_clip_features(params, clip), 1)
+        peak = torch.cuda.max_memory_allocated(dev)
+        line = (f"{FE_PATH}: extract_clip_features on {n} frames of {clip.shape[1]}x{clip.shape[2]} {label} ({smi}): "
+                f"{n * 1e3 / ms_card:.1f} frames/s from a clip on the card ({ms_card:.2f} ms, CUDA events; peak "
+                f"{peak / 2**30:.2f} GiB)")
+        del clip
+        if isinstance(clip_host, np.ndarray):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            equirect.extract_clip_features(params, clip_host)
+            torch.cuda.synchronize()
+            ms_host = (time.perf_counter() - t0) * 1e3
+            line += (f", {n * 1e3 / ms_host:.1f} frames/s from host uint8 arrays, the host->card copy included "
+                     f"({ms_host:.2f} ms, host clock)")
+    print(line, flush=True)
+
+
+def drive_features(dev, tmp, smi):
+    """Phase 10: the two clips through extract-features on the card, the
+    features against the CPU path, prepare-data --features → (train, test)
+    windows of video-fusion; frames/s of extract_clip_features."""
+    frames_dir = f"{tmp}/frames"
+    os.makedirs(frames_dir)
+    t0 = time.perf_counter()
+    clips = [synthetic_clip(seed) for seed in (0, 1)]
+    for v, clip in enumerate(clips):
+        np.save(f"{frames_dir}/video{v}.npy", clip)
+    print(f"{FE_PATH}: two clips of {CLIP_T} frames of {CLIP_H}x{CLIP_W} uint8 ({clips[0].nbytes / 1e9:.2f} GB "
+          f"each) written in {time.perf_counter() - t0:.1f} s", flush=True)
+    feats_path = f"{tmp}/features.npz"
+    t0 = time.perf_counter()
+    _, launches = drive(FE_PATH, lambda: cli.main(["extract-features", "--frames-dir", frames_dir, "--out",
+                                                   feats_path, "--device", str(dev)]))
+    wall = time.perf_counter() - t0
+    if launches["conv_resize"] != 2 * len(clips):
+        raise AssertionError(f"extract-features launched conv_resize {launches['conv_resize']} times, not 2 a clip")
+    with np.load(feats_path) as z:
+        feats = {k: z[k] for k in z.files}
+    if sorted(feats) != ["video0", "video1"] or not all(
+            f.shape == (CLIP_T, 128) and np.isfinite(f).all() for f in feats.values()):
+        raise AssertionError(f"extract-features wrote {[(k, v.shape) for k, v in feats.items()]}")
+    n_cpu = 24
+    params_cpu = equirect.init_conv_features(torch.Generator().manual_seed(0), device="cpu")
+    with torch.inference_mode():
+        cpu = equirect.extract_clip_features(params_cpu, clips[1][:n_cpu]).numpy()
+    d_cpu = float(np.abs(feats["video1"][:n_cpu] - cpu).max())
+    print(f"{FE_PATH}: extract-features (2 clips, decode one ahead on a thread) in {wall:.2f} s wall; "
+          f"features {feats['video0'].shape} finite; max |card - CPU path| on video1's first {n_cpu} frames "
+          f"{d_cpu:.3e} (tolerance {FEAT_REL_TOL} of max|CPU| = {FEAT_REL_TOL * np.abs(cpu).max():.3e})", flush=True)
+    if not d_cpu <= FEAT_REL_TOL * np.abs(cpu).max():
+        raise AssertionError("the card's features disagree with the CPU path")
+    blocky_report(dev, params_cpu)
+
+    # frames/s: the first clip at the phase's 480 x 960, from the card and
+    # from the host; 240 frames at 960 x 1920 (a whole 1200-frame clip's
+    # FFTs there would take about 72 GiB), made on the card
+    params = equirect.init_conv_features(torch.Generator().manual_seed(0), device=dev)
+    frames_per_s(dev, params, clips[0], "(the phase's clip)", smi)
+    profile_device(f"{FE_PATH}: extract_clip_features, 240 frames from host arrays",
+                   lambda: equirect.extract_clip_features(params, torch.as_tensor(clips[0][:240], device=dev)), 2, smi)
+    del clips
+    gen = torch.Generator(device=dev).manual_seed(3)
+    big = torch.randint(0, 256, (240, 960, 1920, 3), generator=gen, device=dev, dtype=torch.uint8)
+    frames_per_s(dev, params, big, "(uniform noise made on the card)", smi)
+    del big
+    torch.cuda.empty_cache()
+    time_conv_resize(dev, (CLIP_T, CLIP_H, CLIP_W), (32, 64), 8, smi, keep=False)
+    time_conv_resize(dev, (64, 960, 1920), (32, 64), 8, smi, keep=True)
+
+    win_path = f"{tmp}/fusion_windows.npz"
+    cli.main(["prepare-data", "--out", win_path, "--features", feats_path])
+    train_d, test_d = data.load_packed(win_path), data.load_packed(win_path.replace(".npz", "_test.npz"))
+    print(f"{FE_PATH}: prepare-data --features: {len(train_d['past'])} train / {len(test_d['past'])} test "
+          f"windows, features {train_d['features'].shape[1:]}", flush=True)
+    return (train_d, test_d), launches
+
+
+# --------------------------------------------------------------- video-fusion: serving
+
+
+def drive_fu_serving(cfg, dev, params_np, n_single, n_bulk):
+    """Single requests and one bulk request with ``features`` through the
+    batcher; the answers against the port's plain path on the CPU and the
+    numpy oracle given the same context. Then 64 x 128 maps through
+    ``serve_fused`` (conv_resize + the serve kernel) at B = 16384, against
+    the CPU plain path on its first rows."""
+    params = params_from_numpy(params_np, dev)
+    params_cpu = params_from_numpy(params_np, "cpu")
+    m = cfg.model
+    rng = np.random.default_rng(13)
+    pasts = unit_pasts(rng, n_single + n_bulk, m.h_in)
+    feats = rng.normal(size=(n_single + n_bulk, fusion.FEATURE_DIM)).astype(np.float32)
+    requests = [{"past": pasts[i], "features": feats[i]} for i in range(n_single)]
+    bulk = {"past": pasts[n_single:], "features": feats[n_single:]}
+    bat = serving.DynamicBatcher(lambda b: None, h_in=m.h_in, extra_specs=serving.extra_specs_for(cfg),
+                                 required=serving.required_extras_for(cfg))
+    try:
+        bat.submit(pasts[0])
+        raise AssertionError("a request without features was accepted")
+    except ValueError:
+        pass
+    finally:
+        bat.stop()
+
+    def both():
+        got, stats, _ = serve_batched(cfg, fusion, dev, params, requests, bulk)
+        maps = torch.rand((16384, 64, 128), device=dev)
+        past_n = windows.normalize_window(unit_rows(rng, dev, (16384, m.h_in)))[0]
+        with torch.inference_mode():
+            by_maps = fusion.serve_fused(params, m, past_n.contiguous(), maps=maps)
+        return got, stats, (maps[:512].cpu(), past_n[:512].cpu(), by_maps[:512].cpu())
+
+    (got, stats, (maps, past_n, by_maps)), launches = drive(FU_SERVE, both, also=["fused_serve_ctx", "conv_resize"])
+    xyz = to_xyz(got)
+    batch = {"past": pasts, "features": feats}
+    plain = infer.make_predict_fn(params_cpu, cfg, device="cpu", impl="plain")(batch).numpy()
+    d_plain = float(np.abs(xyz - plain).max())
+    with torch.inference_mode():
+        ctx = fusion.project_features(params_cpu, torch.as_tensor(feats)).numpy()
+        maps_plain = fusion.apply(params_cpu, m, past_n, maps=maps)
+    d_oracle = float(np.abs(xyz - oracle.oracle_predict(params_np, m, pasts, context=ctx)).max())
+    d_maps = (by_maps - maps_plain).abs().max().item()
+    print(f"{FU_SERVE}: {len(requests)} single + 1 bulk ({n_bulk} rows) requests with features in "
+          f"{stats['batches']} batches, a request without them refused; max |xyz - CPU plain path| {d_plain:.3e}; "
+          f"max |xyz - numpy oracle given the context| {d_oracle:.3e} (tolerance {ORACLE_TOL}); maps mode "
+          f"(B=16384, 64x128 maps, conv_resize + fused_serve): max |normalized - CPU plain path| on 512 rows "
+          f"{d_maps:.3e} (tolerance {KERNEL_TOL})", flush=True)
+    if not (d_plain <= ORACLE_TOL and d_oracle <= ORACLE_TOL and d_maps <= KERNEL_TOL):
+        raise AssertionError("video-fusion answers disagree with the plain path or the oracle")
+    return params, launches
+
+
+def fu_serve_call(cfg, params, dev, batch):
+    """One serve-bench call of video-fusion: unit-vector pasts and N(0, 1)
+    features, as ``cli.serve_bench`` draws them."""
+    rng = np.random.default_rng(0)
+    x = {"past": unit_rows(rng, dev, (batch, cfg.model.h_in)),
+         "features": randn(rng, dev, (batch, fusion.FEATURE_DIM))}
+    serve = infer.make_predict_fn(params, cfg, device=dev, with_tiles=True, impl="fused")
+    return lambda: serve(x)
+
+
+def maps_step(cfg, state, dev, smi):
+    """One train step of the maps mode at B = 4096 (64 x 128 maps): the conv
+    stack trains on conv_resize_reference; its leaves must get a gradient."""
+    fam = get_family(cfg.model_family)
+    rng = np.random.default_rng(14)
+    m = cfg.model
+    v = unit_pasts(rng, cfg.batch_size, m.h_in + m.h_out)
+    batch = {"past": v[:, :m.h_in], "future": v[:, m.h_in:],
+             "maps": rng.random((cfg.batch_size, 64, 128)).astype(np.float32)}
+    grad_fn = train.make_grad_fn(cfg, fam.apply, gc_metric=False, **family_fns(fam))
+    gen = train.step_generator(cfg, 0, dev)
+    (loss, _), grads = grad_fn(state.params, batch, gen, 0.5)
+    g = grads["conv"]
+    norms = {k: g[k].norm().item() for k in sorted(g)}
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: grad_fn(state.params, batch, train.step_generator(cfg, 0, dev), 0.5), 3)
+    print(f"{FU_TRAIN}: one maps-mode step (B={cfg.batch_size}, 64x128 maps): loss {loss.item():.5f}, conv "
+          f"gradient norms {json.dumps(norms)}; {ms:.2f} ms a gradient (CUDA events, {smi})", flush=True)
+    if not (all(np.isfinite(list(norms.values()))) and norms["kernels"] > 0 and norms["head_w"] > 0):
+        raise AssertionError("the maps-mode step gave the conv stack no gradient")
+
+
 # --------------------------------------------------------------- main
 
 
@@ -1214,17 +1556,20 @@ def main():
     ).stdout.strip()
     print(smi, flush=True)
 
+    phase("2 build")
     # 2. build every kernel source, one nvcc each, started together
-    sources = ("fused_serve", "lstm_train", "lstm_ss", "lstm_align")
+    sources = ("fused_serve", "lstm_train", "lstm_ss", "lstm_align", "conv_resize")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         builds = dict(zip(sources, pool.map(_build.build, sources)))
     for name, b in builds.items():
         regs = " ".join(ln.strip() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln)
         print(f"build: {name}.cu by nvcc in {b.seconds:.2f} s ({b.path.name}) {regs}", flush=True)
 
+    phase("3 kernels vs plain")
     # 3. every kernel against its plain version at full width
     check_all_kernels(dev)
 
+    phase("4 serve seq2seq-tf-30")
     # 4. seq2seq-tf-30 serving
     cfg = get_preset(PRESET)
     fam = get_family(cfg.model_family)
@@ -1234,12 +1579,14 @@ def main():
     serve_bench(PRESET, ((16384, 10), (262144, 3)), smi)
     time_serve_kernel("fused_serve", dev, params, cfg, 262144, 3, 0, smi)
 
+    phase("5 train seq2seq-tf-30")
     # 5. seq2seq-tf-30 training
     tcfg = get_preset(PRESET, batch_size=TRAIN_B, steps=40, eval_every=10, ckpt_every=20, train_impl="fused")
     trained, train_d, s2s_train = drive_training(tcfg, S2S_TRAIN, dev, also=["fused_serve"])
     time_training(tcfg, trained, train_d, S2S_TRAIN, smi, plain_iters=5)
     time_lstm_kernels(dev, smi)
 
+    phase("6 serve stacked-ss-crossuser")
     # 6. stacked-ss-crossuser serving
     ccfg = get_preset(CU_PRESET)
     cparams, cu_serve = drive_cu_serving(ccfg, dev, cli.bench_params_np(ccfg, 0), CU_SERVE, 48, 1000)
@@ -1249,6 +1596,7 @@ def main():
     for batch, with_library in ((65536, False), (16384, True)):
         time_encode_kernel(dev, batch * ccfg.n_other_users, smi, with_library)
 
+    phase("7 train stacked-ss-crossuser")
     # 7. stacked-ss-crossuser training: teacher_prob anneals 1 → 0 over the run
     ctcfg = get_preset(CU_PRESET, batch_size=TRAIN_B, steps=30, eval_every=10, ckpt_every=15)
     # logged steps evaluate through the serving kernels; the encoder and the
@@ -1260,18 +1608,20 @@ def main():
     time_ss_kernels(dev, smi)
     torch.cuda.empty_cache()
 
+    phase("8 serve stacked-ss-crossuser-10s")
     # 8. stacked-ss-crossuser-10s serving: K = 7 time-aligned peers, 100 + 100 frames
     c10cfg = get_preset(CU10_PRESET)
     c10params, cu10_serve = drive_cu_serving(c10cfg, dev, cli.bench_params_np(c10cfg, 0), CU10_SERVE, 24, 200)
     check_grouped(c10cfg, dev, c10params, rows=1000, n_videos=5)
-    serve_bench(CU10_PRESET, ((16384, 5), (65536, 3)), smi)
+    serve_bench(CU10_PRESET, ((16384, 3), (65536, 2)), smi)
     profile_device(f"{CU10_SERVE}: serve call at B=65536", serve_call(c10cfg, c10params, dev, 65536), 2, smi)
-    time_peer_serve(dev, c10params, c10cfg, 65536, 3, smi)
+    time_peer_serve(dev, c10params, c10cfg, 65536, 1, smi)
     for batch, with_library in ((65536, False), (4096, True)):
         time_peer_context(dev, c10params["peer_encoder"], batch, c10cfg.n_other_users, c10cfg.model.h_out, smi,
                           with_library)
     torch.cuda.empty_cache()
 
+    phase("9 train stacked-ss-crossuser-10s")
     # 9. stacked-ss-crossuser-10s training through aligned_ss_decode; the
     # evaluation serves through the lockstep tier, the encoder trains on
     # lstm_seq_states (f32 residuals), dproj on ss_decode's kernel
@@ -1279,14 +1629,42 @@ def main():
     c10trained, c10train_d, cu10_train = drive_training(c10tcfg, CU10_TRAIN, dev, also=[
         "fused_serve_peers", "peer_context", "lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw",
         "ss_decode_dproj"], step_tol=ALIGN_STEP_REL_TOL)
-    step = time_training(c10tcfg, c10trained, c10train_d, CU10_TRAIN, smi, plain_iters=1)
+    step = time_training(c10tcfg, c10trained, c10train_d, CU10_TRAIN, smi, plain_iters=1, kernel_iters=5)
     profile_device(f"{CU10_TRAIN}: fast step", step, 3, smi)
     del step, c10trained
     torch.cuda.empty_cache()
     time_aligned_kernels(dev, smi)
 
+    phase("10 features video-fusion")
+    # 10. the feature path: extract-features on the card, prepare-data --features
+    with tempfile.TemporaryDirectory() as tmp:
+        fu_windows, fe_launches = drive_features(dev, tmp, smi)
+    torch.cuda.empty_cache()
+
+    phase("11 serve video-fusion")
+    # 11. video-fusion serving: features in every request; the maps mode
+    fcfg = get_preset(FU_PRESET)
+    fparams, fu_serve = drive_fu_serving(fcfg, dev, cli.bench_params_np(fcfg, 0), 48, 1000)
+    serve_bench(FU_PRESET, ((16384, 5), (65536, 3)), smi)
+    profile_device(f"{FU_SERVE}: serve call at B=65536", fu_serve_call(fcfg, fparams, dev, 65536), 2, smi)
+    time_serve_kernel("fused_serve_ctx", dev, fparams, fcfg, 65536, 3, fcfg.model.ctx_dim, smi, keep=False)
+    torch.cuda.empty_cache()
+
+    phase("12 train video-fusion")
+    # 12. video-fusion training on the extracted features: the encoder on
+    # lstm_seq_states, the decoder on ss_decode at C = 64; evaluation serves
+    # through the static-context fused_serve
+    ftcfg = get_preset(FU_PRESET, batch_size=TRAIN_B, steps=30, eval_every=10, ckpt_every=15)
+    ftrained, ftrain_d, fu_train = drive_training(ftcfg, FU_TRAIN, dev, also=[
+        "fused_serve", "lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw", "ss_decode_fwd",
+        "ss_decode_bwd", "ss_decode_dw", "ss_decode_dproj"], windows_=fu_windows)
+    step = time_training(ftcfg, ftrained, ftrain_d, FU_TRAIN, smi, plain_iters=2)
+    profile_device(f"{FU_TRAIN}: fast step", step, 5, smi)
+    maps_step(ftcfg, ftrained, dev, smi)
+
+    phase("done")
     launches = {S2S_SERVE: s2s_serve, S2S_TRAIN: s2s_train, CU_SERVE: cu_serve, CU_TRAIN: cu_train,
-                CU10_SERVE: cu10_serve, CU10_TRAIN: cu10_train}
+                CU10_SERVE: cu10_serve, CU10_TRAIN: cu10_train, FE_PATH: fe_launches}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
          "launches": launches[path][name], "max_abs_err": ERRS[name], **TIMES[name]}

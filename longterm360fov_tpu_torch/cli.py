@@ -1,14 +1,18 @@
 """Command line of the port: ``python -m longterm360fov_tpu_torch``.
 
-``presets`` lists the experiment presets; ``train`` trains a preset and
-``eval`` evaluates its checkpoint (twins of the JAX subcommands);
-``serve-bench`` times the serve path (twin of the JAX ``serve-bench``) on an
-explicit device and prints one JSON line. On ``--device cuda`` the time
-comes from CUDA events and the line names the card and its power limit; on
-``--device cpu`` it is the host clock, for rehearsal only.
+``presets`` lists the experiment presets; ``prepare-data`` packs the
+synthetic store's windows (with ``--features``, each window's video
+features) into an npz; ``extract-features`` turns per-video frame arrays
+into per-frame feature vectors; ``train`` trains a preset and ``eval``
+evaluates its checkpoint (twins of the JAX subcommands); ``serve-bench``
+times the serve path (twin of the JAX ``serve-bench``) on an explicit device
+and prints one JSON line. On ``--device cuda`` the time comes from CUDA
+events and the line names the card and its power limit; on ``--device cpu``
+it is the host clock, for rehearsal only.
 
-Every subcommand that computes takes ``--device`` and runs there; the
-f32 products run in full f32 on the card (``exact_f32_matmul``).
+Every subcommand that computes on a device takes ``--device`` and runs
+there; the f32 products and convolutions run in full f32 on the card
+(``exact_f32_matmul``). ``prepare-data`` is host numpy and takes none.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["main", "serve_bench", "bench_params_np", "card"]
+__all__ = ["main", "serve_bench", "bench_params_np", "card", "extract_features"]
 
 # train flags of the JAX CLI that the port does not have yet, and the
 # ROADMAP.md item that brings each
@@ -58,8 +62,11 @@ def _with_peers(cfg) -> bool:
 
 def bench_params_np(cfg, seed: int) -> dict:
     """Seeded numpy weights of the preset's family: ``oracle.init_params_np``
-    (as in ``bench.py``) and, for cross_user, a Glorot-uniform peer encoder
-    (forget-gate bias 1) from ``default_rng(seed + 1)``."""
+    (as in ``bench.py``) and, from ``default_rng(seed + 1)``, for cross_user
+    a Glorot-uniform peer encoder (forget-gate bias 1), for fusion the conv
+    stack (4 filters N(0, 1/9), a Glorot-uniform head) and the feature MLP
+    (Glorot-uniform), as ``models.fusion.init`` draws them, with zero
+    biases."""
     from . import oracle
     from .models.cell import LSTMParams
 
@@ -72,6 +79,24 @@ def bench_params_np(cfg, seed: int) -> dict:
         b = np.zeros(4 * m.ctx_dim, np.float32)
         b[m.ctx_dim:2 * m.ctx_dim] = 1.0
         tree["peer_encoder"] = LSTMParams(w=w, b=b)
+    if cfg.model_family == "fusion":
+        from .models.fusion import CONV_GRID, FEATURE_DIM
+
+        rng = np.random.default_rng(seed + 1)
+
+        def glorot(rows, cols):
+            lim = np.sqrt(6.0 / (rows + cols))
+            return rng.uniform(-lim, lim, size=(rows, cols)).astype(np.float32)
+
+        channels, hid, ctx = 4, max(cfg.model.ctx_dim, 64), cfg.model.ctx_dim
+        tree["conv"] = {
+            "kernels": (rng.normal(size=(channels, 3, 3)) / 3.0).astype(np.float32),
+            "bias": np.zeros(channels, np.float32),
+            "head_w": glorot(channels * CONV_GRID[0] * CONV_GRID[1], FEATURE_DIM),
+            "head_b": np.zeros(FEATURE_DIM, np.float32),
+        }
+        tree["feat_proj"] = {"w1": glorot(FEATURE_DIM, hid), "b1": np.zeros(hid, np.float32),
+                             "w2": glorot(hid, ctx), "b2": np.zeros(ctx, np.float32)}
     return tree
 
 
@@ -81,11 +106,14 @@ def serve_bench(
 ) -> dict:
     """Time ``iters`` calls of the serve path (normalize → decode →
     denormalize → tile mask) on ``batch`` random viewers, after one warm-up
-    call. Weights are :func:`bench_params_np`. A family that takes peers
-    (cross_user) gets ``n_other_users`` random unit-vector peer futures per
-    viewer (``peers`` >= 0 overrides the preset's K), as the JAX
-    ``serve-bench`` draws them; ``peer_align`` sets the time-aligned peer
-    context (``--peer-align``). Turns TF32 off for the process
+    call. Weights are :func:`bench_params_np`; the inputs are drawn on
+    ``device`` from a ``torch.Generator`` seeded with ``seed``. A family
+    that takes peers (cross_user) gets ``n_other_users`` random unit-vector
+    peer futures per viewer (``peers`` >= 0 overrides the preset's K), as
+    the JAX ``serve-bench`` draws them; ``peer_align`` sets the time-aligned
+    peer context (``--peer-align``). The fusion family gets one N(0, 1)
+    feature vector of width ``FEATURE_DIM`` per viewer, as
+    ``scripts/bench_matrix.py`` draws them. Turns TF32 off for the process
     (``exact_f32_matmul``)."""
     from . import infer
     from .config import get_preset
@@ -97,19 +125,27 @@ def serve_bench(
     cfg = get_preset(preset, **({"n_other_users": peers} if peers >= 0 else {}),
                      **({"model_peer_align": True} if peer_align else {}))
     params = params_from_numpy(bench_params_np(cfg, seed), device)
-    rng = np.random.default_rng(seed)
-    past = rng.normal(size=(batch, cfg.model.h_in, 3)).astype(np.float32)
-    past /= np.linalg.norm(past, axis=-1, keepdims=True)
-    x = {"past": torch.as_tensor(past, device=device)}
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def unit(*shape):
+        v = torch.randn(*shape, 3, generator=gen, device=device)
+        return v / v.norm(dim=-1, keepdim=True)
+
+    x = {"past": unit(batch, cfg.model.h_in)}
     if _with_peers(cfg):
-        others = rng.normal(size=(batch, cfg.n_other_users, cfg.model.h_out, 3)).astype(np.float32)
-        others /= np.linalg.norm(others, axis=-1, keepdims=True)
-        x["other_future"] = torch.as_tensor(others, device=device)
+        x["other_future"] = unit(batch, cfg.n_other_users, cfg.model.h_out)
+    n_features = 0
+    if cfg.model_family == "fusion":
+        from .models.fusion import FEATURE_DIM
+
+        n_features = FEATURE_DIM
+        x["features"] = torch.randn(batch, FEATURE_DIM, generator=gen, device=device)
     serve = infer.make_predict_fn(
         params, cfg, device=device, with_tiles=True, impl=impl
     )
     res = {"preset": preset, "impl": impl, "batch": batch, "iters": iters,
-           "horizon": cfg.model.h_out, "peers": cfg.n_other_users if _with_peers(cfg) else 0}
+           "horizon": cfg.model.h_out, "peers": cfg.n_other_users if _with_peers(cfg) else 0,
+           "features": n_features}
     if device.type == "cuda":
         serve(x)
         torch.cuda.synchronize(device)
@@ -137,6 +173,32 @@ def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="longterm360fov_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     sub.add_parser("presets", help="list experiment presets")
+
+    pd = sub.add_parser("prepare-data", help="traces → packed windows npz")
+    pd.add_argument("--out", required=True)
+    pd.add_argument("--traces", help="directory of trace logs (not ported yet: raises)")
+    pd.add_argument("--h-in", type=int, default=30)
+    pd.add_argument("--h-out", type=int, default=30)
+    pd.add_argument("--rate-hz", type=float, default=10.0)
+    pd.add_argument("--stride", type=int, default=1)
+    pd.add_argument("--n-other-users", type=int, default=0)
+    pd.add_argument("--n-users", type=int, default=8, help="synthetic only")
+    pd.add_argument("--n-videos", type=int, default=2, help="synthetic only")
+    pd.add_argument("--n-frames", type=int, default=1200, help="synthetic only")
+    pd.add_argument("--features", help="per-video feature npz from extract-features; windows gain "
+                    "a 'features' vector for the fusion family")
+
+    xf = sub.add_parser("extract-features",
+                        help="equirect video frames → per-frame feature vectors "
+                        "(decode → saliency/motion → conv stack)")
+    xf.add_argument("--frames-dir", required=True,
+                    help="directory of per-video frame sources (<video>.npy/.npz arrays of "
+                    "(T,H,W,3) frames, or video files when OpenCV can decode them)")
+    xf.add_argument("--out", required=True, help="output npz (one array per video)")
+    xf.add_argument("--max-frames", type=int)
+    xf.add_argument("--stride", type=int, default=1)
+    xf.add_argument("--seed", type=int, default=0, help="conv filter seed (torch.Generator)")
+    xf.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
     sb = sub.add_parser("serve-bench", help="serve-path throughput microbench")
     sb.add_argument("--preset", default="seq2seq-tf-30")
     sb.add_argument("--batch", type=int, default=4096)
@@ -274,6 +336,90 @@ def cmd_presets(_args):
         )
 
 
+def cmd_prepare_data(args):
+    from . import data as D
+    from . import traces as T
+
+    if args.traces:
+        raise SystemExit("not ported yet: prepare-data --traces: ROADMAP.md, slice C (trace ingest)")
+    store = T.synthetic_store(n_users=args.n_users, n_videos=args.n_videos,
+                              n_frames=args.n_frames, rate_hz=args.rate_hz)
+    video_features = None
+    if args.features:
+        with np.load(args.features) as z:
+            video_features = {k: z[k] for k in z.files}
+        print(f"loaded features for {len(video_features)} videos")
+    train_d, test_d = D.windows_from_store(
+        store, args.h_in, args.h_out, stride=args.stride, n_other_users=args.n_other_users,
+        video_features=video_features,
+    )
+    span = args.h_in + args.h_out
+    for split, d in (("train", train_d), ("test", test_d)):
+        if not d:
+            raise SystemExit(
+                f"zero {split} windows: every trace's {split} segment is shorter than "
+                f"h_in+h_out = {span} frames (traces are split 80/20 per trace). Use longer "
+                f"traces or a shorter horizon."
+            )
+    D.save_packed(args.out, train_d)
+    test_path = os.path.splitext(args.out)[0] + "_test.npz"
+    D.save_packed(test_path, test_d)
+    print(f"wrote {len(train_d['past'])} train / {len(test_d['past'])} test windows from "
+          f"{len(store)} traces → {args.out}, {test_path}")
+
+
+def extract_features(frames_dir, *, device, max_frames=None, stride=1, seed=0) -> dict:
+    """Every frame source of ``frames_dir`` → {video (the file's stem):
+    (T, 128) f32 per-frame features} through
+    ``features.equirect.extract_clip_features`` on ``device``, with filters
+    from ``torch.Generator().manual_seed(seed)``. Host decode runs one clip
+    ahead on a thread (bounded: one decoded clip waits while the device
+    works on the other). Undecodable sources are skipped with a note."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .features import equirect as FE
+    from .ops.fused_lstm import exact_f32_matmul
+
+    device = _device(str(device))
+    exact_f32_matmul()
+    params = FE.init_conv_features(torch.Generator().manual_seed(seed), device=device)
+
+    def decode(fname):
+        video = os.path.splitext(fname)[0]
+        try:
+            frames = FE.decode_frames(os.path.join(frames_dir, fname), max_frames=max_frames,
+                                      stride=stride)
+        except (RuntimeError, ValueError) as e:
+            return video, None, f"skipping {fname}: {e}"
+        if frames.size == 0:
+            return video, None, f"skipping {fname}: no frames"
+        return video, frames, None
+
+    files = [f for f in sorted(os.listdir(frames_dir))
+             if os.path.isfile(os.path.join(frames_dir, f))]
+    feats = {}
+    with ThreadPoolExecutor(max_workers=1) as pool, torch.inference_mode():
+        pending = pool.submit(decode, files[0]) if files else None
+        for i in range(len(files)):
+            video, frames, err = pending.result()
+            pending = pool.submit(decode, files[i + 1]) if i + 1 < len(files) else None
+            if err:
+                print(err)
+                continue
+            feats[video] = FE.extract_clip_features(params, frames).cpu().numpy()
+            print(f"{video}: {frames.shape[0]} frames -> {feats[video].shape}")
+    return feats
+
+
+def cmd_extract_features(args):
+    feats = extract_features(args.frames_dir, device=args.device, max_frames=args.max_frames,
+                             stride=args.stride, seed=args.seed)
+    if not feats:
+        raise SystemExit(f"no decodable frame sources in {args.frames_dir}")
+    np.savez_compressed(args.out, **feats)
+    print(f"wrote {len(feats)} videos -> {args.out}")
+
+
 def cmd_serve_bench(args):
     print(json.dumps(serve_bench(
         preset=args.preset, batch=args.batch, iters=args.iters,
@@ -362,5 +508,6 @@ def main(argv=None):
     args = _build_parser().parse_args(argv)
     {
         "presets": cmd_presets, "serve-bench": cmd_serve_bench,
-        "train": cmd_train, "eval": cmd_eval,
+        "train": cmd_train, "eval": cmd_eval, "prepare-data": cmd_prepare_data,
+        "extract-features": cmd_extract_features,
     }[args.cmd](args)

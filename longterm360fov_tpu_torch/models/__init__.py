@@ -2,13 +2,13 @@
 
 Every family exposes ``init(gen, cfg, *, device) -> params`` and
 ``apply(params, cfg, past_n, future_n=None, *, ...) -> (B, H_out, D)``, as
-in ``longterm360fov_tpu.models``. The seq2seq LSTM and cross_user families
-are ported.
+in ``longterm360fov_tpu.models``. The seq2seq LSTM, cross_user and fusion
+families are ported.
 """
 
 from __future__ import annotations
 
-from . import cell, cross_user, seq2seq  # noqa: F401
+from . import cell, cross_user, fusion, seq2seq  # noqa: F401
 
 
 def get_family(name: str):
@@ -17,7 +17,9 @@ def get_family(name: str):
         return seq2seq
     if name == "cross_user":
         return cross_user
-    if name in ("fusion", "transformer"):
+    if name == "fusion":
+        return fusion
+    if name == "transformer":
         raise NotImplementedError(
             f"model family {name!r} is not ported yet (ROADMAP.md, slice "
             f"{name!r})"

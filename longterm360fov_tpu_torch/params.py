@@ -1,5 +1,5 @@
-"""Carry a seq2seq or cross_user parameter tree from numpy into the port's
-tensors.
+"""Carry a seq2seq, cross_user or fusion parameter tree from numpy into the
+port's tensors, and walk a tree in ``jax.tree_util``'s order.
 
 ``jax.random`` and ``torch.Generator`` give different numbers from the same
 seed, so the port and the JAX package share weights, not seeds: the JAX
@@ -9,14 +9,14 @@ the numpy tree of ``oracle.init_params_np``, becomes the port's params here.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
 
 from .models.cell import LSTMParams
 
-__all__ = ["params_from_numpy", "tree_leaves", "tree_unflatten"]
+__all__ = ["params_from_numpy", "walk", "tree_leaves", "tree_unflatten"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -24,63 +24,77 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 _SEQ2SEQ = {"encoder", "decoder", "proj"}
-_CROSS_USER = _SEQ2SEQ | {"peer_encoder"}  # + one LSTMParams
+# the families' extra subtrees: an LSTMParams, or a dict with these keys
+_EXTRA = {
+    "peer_encoder": None,  # cross_user
+    "conv": {"kernels", "bias", "head_w", "head_b"},  # fusion
+    "feat_proj": {"w1", "b1", "w2", "b2"},  # fusion
+}
+_FAMILIES = (_SEQ2SEQ, _SEQ2SEQ | {"peer_encoder"}, _SEQ2SEQ | {"conv", "feat_proj"})
 
 
 def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
     """``{"encoder": [(w, b)], "decoder": [(w, b)], "proj": {"w", "b"}}``,
-    and for the cross_user family ``"peer_encoder": (w, b)``, of numpy
-    arrays (each layer any ``(w, b)`` pair, such as the JAX ``LSTMParams``)
-    → the same structure of tensors on ``device``, with the port's
-    ``LSTMParams``. Dtypes are kept."""
-    if set(tree) not in (_SEQ2SEQ, _CROSS_USER):
+    and for the cross_user family ``"peer_encoder": (w, b)``, for the fusion
+    family ``"conv": {"kernels", "bias", "head_w", "head_b"}`` and
+    ``"feat_proj": {"w1", "b1", "w2", "b2"}``, of numpy arrays (each layer
+    any ``(w, b)`` pair, such as the JAX ``LSTMParams``) → the same
+    structure of tensors on ``device``, with the port's ``LSTMParams``.
+    Dtypes are kept."""
+    if set(tree) not in _FAMILIES:
         raise KeyError(
-            f"expected a seq2seq params tree with keys encoder, decoder, "
-            f"proj (and peer_encoder for cross_user); got {sorted(tree)}"
+            f"expected a seq2seq params tree with keys encoder, decoder, proj "
+            f"(and peer_encoder for cross_user, conv and feat_proj for fusion); "
+            f"got {sorted(tree)}"
         )
 
     def layer(wb):
         w, b = wb
         return LSTMParams(w=_tensor(w, device), b=_tensor(b, device))
 
+    def leaves(d, keys):
+        if set(d) != keys:
+            raise KeyError(f"expected keys {sorted(keys)}, got {sorted(d)}")
+        return {k: _tensor(d[k], device) for k in keys}
+
     out = {
         "encoder": [layer(p) for p in tree["encoder"]],
         "decoder": [layer(p) for p in tree["decoder"]],
-        "proj": {
-            "w": _tensor(tree["proj"]["w"], device),
-            "b": _tensor(tree["proj"]["b"], device),
-        },
+        "proj": leaves(tree["proj"], {"w", "b"}),
     }
-    if "peer_encoder" in tree:
-        out["peer_encoder"] = layer(tree["peer_encoder"])
+    for name, keys in _EXTRA.items():
+        if name in tree:
+            out[name] = layer(tree[name]) if keys is None else leaves(tree[name], keys)
     return out
 
 
+def walk(tree, fn: Callable, prefix: str = ""):
+    """Rebuild ``tree`` with ``fn(dotted_key, leaf)`` at every leaf, visited
+    in ``jax.tree_util``'s order: dict keys sorted, sequences by index, named
+    tuples by field name."""
+    join = (lambda k: f"{prefix}.{k}") if prefix else str
+    if isinstance(tree, dict):
+        return {k: walk(tree[k], fn, join(k)) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(walk(getattr(tree, f), fn, join(f)) for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(walk(v, fn, join(i)) for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
 def tree_leaves(params: Dict[str, Any]) -> list:
-    """The tensors of a params tree in ``jax.tree.leaves`` order: decoder
-    layers (w, b), encoder layers (w, b), the peer encoder (w, b) when there
-    is one, then proj b, proj w (dict keys sorted, as JAX flattens them).
-    The optimizer state, the checkpoint and ``flat_param_items`` rely on
-    this order."""
+    """The tensors of a params tree in ``jax.tree.leaves`` order: for
+    seq2seq the decoder layers (w, b), the encoder layers (w, b), proj b and
+    w; cross_user adds the peer encoder (w, b) before proj; fusion adds
+    conv (bias, head_b, head_w, kernels) first and feat_proj (b1, b2, w1,
+    w2) before proj. The optimizer state, the checkpoint and
+    ``serving.flat_param_items`` rely on this order."""
     out = []
-    for stack in (params["decoder"], params["encoder"]):
-        for p in stack:
-            out += [p.w, p.b]
-    if "peer_encoder" in params:
-        out += [params["peer_encoder"].w, params["peer_encoder"].b]
-    return out + [params["proj"]["b"], params["proj"]["w"]]
+    walk(params, lambda _, leaf: out.append(leaf))
+    return out
 
 
 def tree_unflatten(like: Dict[str, Any], leaves) -> Dict[str, Any]:
     """Inverse of :func:`tree_leaves`, with the structure of ``like``."""
     it = iter(leaves)
-
-    def stack(layers):
-        return [LSTMParams(w=next(it), b=next(it)) for _ in layers]
-
-    out = {"decoder": stack(like["decoder"]), "encoder": stack(like["encoder"])}
-    if "peer_encoder" in like:
-        out["peer_encoder"] = LSTMParams(w=next(it), b=next(it))
-    b = next(it)
-    out["proj"] = {"w": next(it), "b": b}
-    return out
+    return walk(like, lambda _, __: next(it))

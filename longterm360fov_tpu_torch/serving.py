@@ -12,11 +12,13 @@ PyTorch twin of the serve-path subset of ``longterm360fov_tpu.serving``:
   dispatch (copied from the JAX package; only the readback differs), with
   the per-request extras of the family's schema (:func:`extra_specs_for`,
   :func:`required_extras_for`): the cross_user peer futures and their mask,
-  zero-filled when a request has none. Padding rows are copies of a real
-  request row and are sliced off before results are returned, so
-  co-batching never changes any viewer's answer.
+  zero-filled when a request has none, and the fusion features, which every
+  request must carry. Padding rows are copies of a real request row and are
+  sliced off before results are returned, so co-batching never changes any
+  viewer's answer.
 - :func:`load_exported_params` — loads the flat dotted-key ``export`` npz
-  of the JAX package into the port's params (seq2seq and cross_user trees).
+  of the JAX package into the port's params (seq2seq, cross_user and
+  fusion trees).
 - the grouped gateway: :func:`group_pack`, :func:`make_grouped_serve_fn`
   (its generic tier: each video's peer set rides to the device once and a
   per-row ``gfut[gid]`` gather there feeds the family's serve path) and
@@ -40,6 +42,8 @@ import numpy as np
 import torch
 
 from . import geometry, infer, windows
+from .models.fusion import FEATURE_DIM
+from .params import walk
 
 __all__ = [
     "DynamicBatcher",
@@ -133,10 +137,6 @@ def make_serve_fn(
     return fn
 
 
-# the family's feature width (longterm360fov_tpu.models.fusion.FEATURE_DIM)
-FUSION_FEATURE_DIM = 128
-
-
 def extra_specs_for(cfg) -> Dict[str, Tuple[int, ...]]:
     """Per-request extra-array schema for the preset's model family, as the
     JAX ``serving.extra_specs_for`` gives it. Mask-gated extras (peer
@@ -149,7 +149,7 @@ def extra_specs_for(cfg) -> Dict[str, Tuple[int, ...]]:
         k, t = cfg.n_other_users, cfg.model.h_out
         return {"other_future": (k, t, 3), "other_mask": (k,)}
     if fam == "fusion":
-        return {"features": (FUSION_FEATURE_DIM,)}
+        return {"features": (FEATURE_DIM,)}
     return {}
 
 
@@ -162,28 +162,12 @@ def required_extras_for(cfg) -> frozenset:
     )
 
 
-def _walk(tree, fn, prefix=""):
-    """Rebuild ``tree`` with ``fn(dotted_key, leaf)`` at every leaf, in
-    ``jax.tree_util``'s order: dict keys sorted, sequences by index, named
-    tuples by field name."""
-    join = (lambda k: f"{prefix}.{k}") if prefix else str
-    if isinstance(tree, dict):
-        return {k: _walk(tree[k], fn, join(k)) for k in sorted(tree)}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(
-            *(_walk(getattr(tree, f), fn, join(f)) for f in tree._fields)
-        )
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_walk(v, fn, join(i)) for i, v in enumerate(tree))
-    return fn(prefix, tree)
-
-
 def flat_param_items(params):
     """(dotted-path key, leaf) pairs for a params tree — the same keys the
     JAX ``serving.flat_param_items`` gives for the same structure, which
     are the ``export`` npz's keys."""
     items = []
-    _walk(params, lambda k, leaf: items.append((k, leaf)))
+    walk(params, lambda k, leaf: items.append((k, leaf)))
     return items
 
 
@@ -214,7 +198,7 @@ def load_exported_params(npz_path: str, cfg, fam, *, device):
             keys.add(key)
             return torch.from_numpy(arr).to(device=device, dtype=like.dtype)
 
-        params = _walk(skeleton, leaf)
+        params = walk(skeleton, leaf)
         extra = set(loaded.files) - keys
     if extra:
         raise KeyError(f"exported npz has unknown params: {sorted(extra)}")

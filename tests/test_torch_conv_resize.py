@@ -1,0 +1,145 @@
+"""The port's fused conv+resize (``ops.conv_resize``) against the JAX
+package on the CPU: the resize operator, the two-tap tables the CUDA kernel
+gathers with, the plain version against JAX's reference and its Pallas
+kernel in interpret mode, and the library yardstick ``F.interpolate``
+against the einsum. The CUDA kernel itself is checked on the card
+(``tests/test_torch_kernel_cuda.py``, ``chip_smoke.py``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from longterm360fov_tpu.ops import conv_resize as JCR
+from longterm360fov_tpu_torch.ops import conv_resize as CR
+
+# the five shapes the card checks, scaled down (B, H, W) → (h, w), C:
+# the JAX suite's shape, a clip's saliency maps, the fusion maps mode,
+# upsampling, and odd source sizes
+SHAPES = [
+    ((3, 48, 96), (16, 32), 4),
+    ((4, 96, 192), (8, 16), 8),
+    ((9, 16, 32), (4, 8), 4),
+    ((5, 12, 20), (16, 32), 4),
+    ((3, 97, 191), (8, 16), 8),
+]
+# (dst, src) pairs of every full-size shape the card runs
+FULL_PAIRS = [(16, 48), (32, 96), (32, 960), (64, 1920), (16, 64), (32, 128), (16, 12),
+              (32, 20), (32, 961), (64, 1917)]
+
+
+def _case(shape, c, seed):
+    rng = np.random.default_rng(seed)
+    frames = rng.normal(size=shape).astype(np.float32)
+    kernels = rng.normal(size=(c, 3, 3)).astype(np.float32)
+    bias = rng.normal(size=(c,)).astype(np.float32)
+    return frames, kernels, bias
+
+
+@pytest.mark.parametrize("dst,src", FULL_PAIRS)
+def test_resize_matrix_bit_equal_to_jax(dst, src):
+    assert np.array_equal(CR.resize_matrix(dst, src), JCR.resize_matrix(dst, src))
+
+
+@pytest.mark.parametrize("dst,src", FULL_PAIRS)
+def test_resize_taps_rebuild_the_matrix(dst, src):
+    """The kernel's (lo, hi, w_lo, w_hi) tables are the matrix's own f32
+    non-zeros: at most two a row, rebuilt bit for bit."""
+    idx, wt = CR.resize_taps(dst, src)
+    assert idx.shape == wt.shape == (2, dst) and idx.dtype == np.int32
+    r = np.zeros((dst, src), np.float32)
+    rows = np.arange(dst)
+    np.add.at(r, (rows, idx[0]), wt[0])
+    np.add.at(r, (rows, idx[1]), wt[1])
+    assert np.array_equal(r, JCR.resize_matrix(dst, src))
+    assert ((idx >= 0) & (idx < src)).all()
+
+
+@pytest.mark.parametrize("shape,out_hw,c", SHAPES)
+def test_plain_version_matches_jax(shape, out_hw, c):
+    """1e-5 against JAX's reference (f32 sums in another order) and 1e-4
+    against JAX's kernel in interpret mode (tests/test_features.py's
+    bound)."""
+    frames, kernels, bias = _case(shape, c, seed=c)
+    ours = CR.conv_resize_reference(torch.from_numpy(frames), out_hw, torch.from_numpy(kernels),
+                                    torch.from_numpy(bias)).numpy()
+    j_in = (jnp.asarray(frames), out_hw, jnp.asarray(kernels), jnp.asarray(bias))
+    assert ours.shape == (shape[0], c) + out_hw
+    np.testing.assert_allclose(ours, np.asarray(JCR.conv_resize_reference(*j_in)), atol=1e-5)
+    np.testing.assert_allclose(ours, np.asarray(JCR.fused_conv_resize(*j_in)), atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,out_hw,c", SHAPES)
+def test_wrapper_on_cpu_is_the_plain_version(shape, out_hw, c):
+    frames, kernels, bias = (torch.from_numpy(a) for a in _case(shape, c, seed=1))
+    before = CR.fused_conv_resize.launches
+    out = CR.fused_conv_resize(frames, out_hw, kernels, bias)
+    assert torch.equal(out, CR.conv_resize_reference(frames, out_hw, kernels, bias))
+    assert CR.fused_conv_resize.launches == before  # no kernel ran
+
+
+@pytest.mark.parametrize("shape,out_hw", [((2, 48, 96), (16, 32)), ((2, 960, 1920), (32, 64)),
+                                          ((3, 64, 128), (16, 32)), ((2, 12, 20), (16, 32)),
+                                          ((2, 961, 1917), (32, 64))])
+def test_interpolate_equals_the_einsum(shape, out_hw):
+    """The library yardstick of chip_smoke.py computes the same resize, at
+    the full sizes the card runs: in float64, F.interpolate(bilinear,
+    align_corners=False, antialias=False) applies resize_matrix's operators
+    bit for bit (one-hot rows and columns, the other axis kept at its size),
+    and on random frames it equals the einsum within 1e-12 (f64 sums in
+    another order)."""
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=shape))
+    h, w = out_hw
+
+    def interp(t, size):
+        return F.interpolate(t[:, None], size=size, mode="bilinear", align_corners=False,
+                             antialias=False)[:, 0]
+
+    rh = torch.from_numpy(CR.resize_matrix(h, shape[1])).double()
+    rw = torch.from_numpy(CR.resize_matrix(w, shape[2])).double()
+    rows = torch.eye(shape[1], dtype=torch.float64)[:, :, None].expand(-1, -1, 2)
+    cols = torch.eye(shape[2], dtype=torch.float64)[:, None, :].expand(-1, 2, -1)
+    assert torch.equal(interp(rows, (h, 2))[:, :, 0].t(), rh)
+    assert torch.equal(interp(cols, (2, w))[:, 0, :].t(), rw)
+    diff = (interp(x, out_hw) - torch.einsum("hH,bHW,wW->bhw", rh, x, rw)).abs().max().item()
+    assert diff <= 1e-12
+
+
+def test_wrapper_raises_on_requires_grad():
+    frames, kernels, bias = (torch.from_numpy(a) for a in _case((2, 48, 96), 4, seed=2))
+    with pytest.raises(RuntimeError, match="no backward"):
+        CR.fused_conv_resize(frames, (16, 32), kernels.requires_grad_(True), bias)
+    with torch.no_grad():  # no graph: the kernel's forward is all that is asked
+        CR.fused_conv_resize(frames, (16, 32), kernels, bias)
+
+
+def test_plain_version_is_differentiable():
+    frames, kernels, bias = (torch.from_numpy(a) for a in _case((2, 48, 96), 4, seed=3))
+    kernels.requires_grad_(True)
+    CR.conv_resize_reference(frames, (16, 32), kernels, bias).sum().backward()
+    assert kernels.grad is not None and kernels.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("bad", ["even-k", "bias", "dtype", "rank"])
+def test_bad_inputs_raise(bad):
+    frames, kernels, bias = (torch.from_numpy(a) for a in _case((2, 16, 32), 4, seed=4))
+    if bad == "even-k":
+        kernels = torch.zeros(4, 2, 2)
+    elif bad == "bias":
+        bias = torch.zeros(3)
+    elif bad == "dtype":
+        frames = frames.double()
+    else:
+        frames = frames[0]
+    with pytest.raises((ValueError, TypeError)):
+        CR.fused_conv_resize(frames, (8, 16), kernels, bias)
+
+
+def test_tile_rows_fit_a_block():
+    assert CR.tile_rows(32, 64, 8, 3) == 8 and CR.tile_rows(4, 8, 4, 3) == 4
+    rows = CR.tile_rows(32, 2000, 8, 3)
+    assert 1 <= rows < 8 and 4 * (8 * 10 + (rows + 2) * 2002) <= 48 * 1024
+    with pytest.raises(ValueError, match="does not fit"):
+        CR.tile_rows(32, 20000, 8, 3)

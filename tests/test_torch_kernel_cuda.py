@@ -14,7 +14,7 @@ import torch
 from longterm360fov_tpu_torch import oracle
 from longterm360fov_tpu_torch.models import seq2seq
 from longterm360fov_tpu_torch.models.cell import LSTMParams
-from longterm360fov_tpu_torch.ops import fused_lstm, lstm_align, lstm_ss, lstm_train
+from longterm360fov_tpu_torch.ops import conv_resize, fused_lstm, lstm_align, lstm_ss, lstm_train
 from longterm360fov_tpu_torch.params import params_from_numpy
 
 # the condition string is evaluated when the test runs, not at import
@@ -200,7 +200,7 @@ def _cuda(rng, shape, scale=1.0):
     return torch.tensor(rng.normal(size=shape).astype(np.float32) * scale, device="cuda")
 
 
-@pytest.mark.parametrize("ctx_dim", [0, 128])
+@pytest.mark.parametrize("ctx_dim", [0, 128, 64])  # C = 64: video-fusion
 @pytest.mark.parametrize("layers", [1, 2, 3])
 @pytest.mark.parametrize("batch", [1, 257, 4099])
 def test_fused_serve_context_tier_matches_plain(batch, layers, ctx_dim):
@@ -281,7 +281,7 @@ def _ss_fwd_args(ps, a):
 
 
 @pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("layers,ctx_dim", [(1, 0), (2, 128), (3, 128)])
+@pytest.mark.parametrize("layers,ctx_dim", [(1, 0), (2, 128), (3, 128), (2, 64)])  # C = 64: video-fusion
 @pytest.mark.parametrize("batch", [1, 257, 4099])
 def test_ss_kernels_match_plain(batch, layers, ctx_dim, rd):
     ps, a = _ss_case(batch, layers, ctx_dim, "bernoulli", seed=layers)
@@ -541,3 +541,56 @@ def test_aligned_backward_is_deterministic():
         runs.append(torch.autograd.grad((out * a["dys"]).sum(), leaves))
     for x, y in zip(*runs):
         assert torch.equal(x, y)
+
+
+# ------------------------------------------------------------- conv_resize kernel
+# Against its plain version (the dense einsum, then cuDNN's conv in exact
+# f32): 1e-5 of max|plain|. The kernel sums the resize's two non-zero taps
+# a row where the einsum sums every term (the zeros exactly), and the K·K
+# taps in another order than cuDNN: a few ulps of values up to ~10.
+
+CONV_SHAPES = [
+    ((3, 48, 96), (16, 32), 4),  # the JAX suite's shape
+    ((64, 960, 1920), (32, 64), 8),  # extract_clip_features' defaults
+    ((4099, 64, 128), (16, 32), 4),  # the fusion maps mode
+    ((5, 12, 20), (16, 32), 4),  # upsampling: two taps a row
+    ((7, 961, 1917), (32, 64), 8),  # odd sizes
+    ((2, 40, 2000), (20, 1500), 3),  # a wide output: fewer rows a block
+]
+
+
+def _conv_case(shape, c, seed):
+    rng = np.random.default_rng(seed)
+    return (_cuda(rng, shape), _cuda(rng, (c, 3, 3), 1 / 3), _cuda(rng, (c,), 0.1))
+
+
+@pytest.mark.parametrize("shape,out_hw,c", CONV_SHAPES)
+def test_conv_resize_kernel_matches_plain(shape, out_hw, c):
+    frames, kernels, bias = _conv_case(shape, c, seed=c)
+    before = conv_resize.fused_conv_resize.launches
+    out = conv_resize.fused_conv_resize(frames, out_hw, kernels, bias)
+    torch.cuda.synchronize()
+    assert conv_resize.fused_conv_resize.launches == before + 1
+    ref = conv_resize.conv_resize_reference(frames, out_hw, kernels, bias)
+    assert out.shape == (shape[0], c) + out_hw and torch.isfinite(out).all()
+    assert _rel(out, ref) <= 1e-5
+
+
+def test_conv_resize_is_deterministic_and_rows_are_independent():
+    frames, kernels, bias = _conv_case((9, 200, 400), 4, seed=1)
+    full = conv_resize.fused_conv_resize(frames, (16, 32), kernels, bias)
+    assert torch.equal(full, conv_resize.fused_conv_resize(frames, (16, 32), kernels, bias))
+    assert torch.equal(full[3:7], conv_resize.fused_conv_resize(frames[3:7].contiguous(), (16, 32),
+                                                                kernels, bias))
+
+
+def test_conv_resize_never_falls_back_on_card():
+    frames, kernels, bias = _conv_case((2, 48, 96), 4, seed=2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv_resize.fused_conv_resize(frames, (16, 32), kernels.clone().requires_grad_(True), bias)
+    with pytest.raises(ValueError, match="odd K"):
+        conv_resize.fused_conv_resize(frames, (16, 32), torch.zeros(4, 2, 2, device="cuda"), bias)
+    with pytest.raises(ValueError, match="does not fit"):
+        conv_resize.fused_conv_resize(frames, (16, 20000), kernels, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_resize.fused_conv_resize(frames.transpose(1, 2), (16, 32), kernels, bias)
