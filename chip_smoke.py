@@ -21,7 +21,11 @@ one line each or more:
    residual types, the three coin kinds); the static-context ``fused_serve``
    and the ``ss_decode`` kernels at video-fusion's C = 64; ``conv_resize`` at
    five shapes (the JAX suite's, a clip at the feature defaults, the fusion
-   maps mode, upsampling, odd sizes);
+   maps mode, upsampling, odd sizes); ``fused_encode_tokens`` (B = 16384 at
+   T = 30, a ragged B, T = 13 and 64) and ``fused_ar_decode`` (30 + 30 steps,
+   L = 2: no peers, K = 4 per-row peers with a row of no valid peer, which
+   must equal the peerless rollout, and a row of one; ``peer_pool`` "mean";
+   ``peer_window`` 2);
 4. the ``seq2seq-tf-30`` serving main path: ``serving.make_serve_fn`` behind
    a ``DynamicBatcher`` answers 64 concurrent single-viewer requests and one
    bulk request; every answer equals the direct batched call and the numpy
@@ -73,7 +77,20 @@ one line each or more:
 12. the ``video-fusion`` training main path: ``train.train_loop`` at
    B = 4096 on the windows of 10 through ``lstm_seq_states`` and
    ``ss_decode`` at C = 64, as in 7; the step's speed and profile; one
-   maps-mode step, whose conv leaves must get a gradient.
+   maps-mode step, whose conv leaves must get a gradient;
+13. the ``transformer-30`` serving main path: the batcher with
+   ``other_future`` in every request (K = 4 peers, two, or K all masked)
+   and one bulk request, in front of ``fused_encode_tokens`` and
+   ``fused_ar_decode``; every answer against the port's plain path on the
+   CPU; serve-bench at B = 16384 and 65536; a profile of one B = 16384
+   call; both kernels alone against plain (the encoder also against
+   ``nn.TransformerEncoder`` with the same weights) at both batches;
+14. the ``transformer-30`` training main path: ``train.train_loop`` at
+   B = 4096 with K = 4 peers, noisy teacher forcing annealing 1 → 0.3
+   (autograd through the parallel pass, no kernel in the step, as in JAX),
+   evaluation through both kernels, checkpoints and a resume that equals
+   the uninterrupted run; one step's gradients on the card against the CPU
+   port's with the same noise; the step's speed and profile.
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -98,15 +115,17 @@ import torch
 from longterm360fov_tpu_torch import checkpoint, cli, data, infer, oracle, serving, traces, train, windows
 from longterm360fov_tpu_torch.config import get_preset
 from longterm360fov_tpu_torch.features import equirect
-from longterm360fov_tpu_torch.models import cross_user, fusion, get_family
+from longterm360fov_tpu_torch.models import cross_user, fusion, get_family, transformer
 from longterm360fov_tpu_torch.models.cell import LSTMParams
-from longterm360fov_tpu_torch.ops import _build, conv_resize, fused_lstm, lstm_align, lstm_ss, lstm_train
-from longterm360fov_tpu_torch.params import params_from_numpy, tree_leaves
+from longterm360fov_tpu_torch.ops import (_build, conv_resize, fused_lstm, lstm_align, lstm_ss, lstm_train,
+                                          transformer_decode, transformer_encode)
+from longterm360fov_tpu_torch.params import params_from_numpy, tree_leaves, tree_unflatten
 
 PRESET = "seq2seq-tf-30"
 CU_PRESET = "stacked-ss-crossuser"
 CU10_PRESET = "stacked-ss-crossuser-10s"
 FU_PRESET = "video-fusion"
+TF_PRESET = "transformer-30"
 KERNEL_TOL = 1e-4  # serve kernel vs plain, normalized outputs, f32 after 60 steps
 ORACLE_TOL = 1e-4  # batcher answers vs the numpy oracle or the CPU plain path, unit xyz
 # encode kernel vs plain: exact f32 FMAs in another order over 30 steps of a
@@ -136,10 +155,17 @@ LSTM_SRC = "longterm360fov_tpu_torch/csrc/lstm_train.cu"
 SS_SRC = "longterm360fov_tpu_torch/csrc/lstm_ss.cu"
 ALIGN_SRC = "longterm360fov_tpu_torch/csrc/lstm_align.cu"
 CONV_SRC = "longterm360fov_tpu_torch/csrc/conv_resize.cu"
+TENC_SRC = "longterm360fov_tpu_torch/csrc/transformer_encode.cu"
+TDEC_SRC = "longterm360fov_tpu_torch/csrc/transformer_decode.cu"
 S2S_SERVE, S2S_TRAIN = "serve seq2seq-tf-30", "train seq2seq-tf-30"
 CU_SERVE, CU_TRAIN = "serve stacked-ss-crossuser", "train stacked-ss-crossuser"
 CU10_SERVE, CU10_TRAIN = "serve stacked-ss-crossuser-10s", "train stacked-ss-crossuser-10s"
 FE_PATH, FU_SERVE, FU_TRAIN = "features video-fusion", "serve video-fusion", "train video-fusion"
+TF_SERVE, TF_TRAIN = "serve transformer-30", "train transformer-30"
+# the transformer kernels vs plain: 3e-5 absolute on the encoder memory and
+# the normalized outputs, the JAX suite's bound for both TPU kernels
+# (tests/test_transformer_encode.py:35, tests/test_transformer_decode.py:43)
+TF_TOL = 3e-5
 # conv_resize vs plain: 1e-5 of max|plain|. The kernel sums the resize's two
 # non-zero taps a row where the einsum sums every term (its zeros exactly),
 # and the K·K conv taps in another order than cuDNN: a few ulps.
@@ -173,6 +199,10 @@ KERNELS = [
     ("aligned_dec_dw", ALIGN_SRC, ALIGN_BWD, lstm_align.dec_dw, CU10_TRAIN),
     ("aligned_peer_dw", ALIGN_SRC, ALIGN_BWD, lstm_align.peer_dw, CU10_TRAIN),
     ("conv_resize", CONV_SRC, "longterm360fov_tpu/ops/conv_resize.py:75", conv_resize.fused_conv_resize, FE_PATH),
+    ("fused_encode_tokens", TENC_SRC, "longterm360fov_tpu/ops/transformer_encode.py:226",
+     transformer_encode.fused_encode_tokens, TF_SERVE),
+    ("fused_ar_decode", TDEC_SRC, "longterm360fov_tpu/ops/transformer_decode.py:754",
+     transformer_decode.fused_ar_decode, TF_SERVE),
 ]
 WRAPPERS = {name: wrapper for name, _, _, wrapper, _ in KERNELS}
 ERRS = {name: 0.0 for name in WRAPPERS}  # max abs error vs plain over every check
@@ -597,6 +627,15 @@ def check_all_kernels(dev):
                                             ((7, 961, 1917), (32, 64), 8)))}
     print(f"conv_resize vs plain, K=3: max_abs_err {json.dumps(errs)} (tolerance {CONV_REL_TOL} of max|plain|)",
           flush=True)
+    errs = {f"B={b} T={t} L={l}": check_tf_encode(dev, b, t, l, seed=i)
+            for i, (b, t, l) in enumerate(((16384, 30, 2), (4099, 30, 2), (4099, 13, 2), (1001, 64, 1)))}
+    print(f"fused_encode_tokens vs plain, hidden 128: max_abs_err {json.dumps(errs)} (tolerance {TF_TOL})",
+          flush=True)
+    errs = {f"K={k} pool={pool} window={w}": check_tf_decode(dev, 4099, k, pool, w, seed=i)
+            for i, (k, pool, w) in enumerate(((0, "none", 0), (4, "none", 0), (4, "mean", 0), (4, "none", 2)))}
+    print(f"fused_ar_decode vs plain, hidden 128, L=2, 30+30 steps, B=4099 (with peers: a row with no valid peer, "
+          f"equal to the peerless rollout, and a row with one): max_abs_err {json.dumps(errs)} (tolerance {TF_TOL})",
+          flush=True)
 
 
 # --------------------------------------------------------------- phase 4: seq2seq-tf-30 serving
@@ -722,13 +761,13 @@ def time_serve_kernel(name, dev, params, cfg, batch, iters, ctx_dim, smi, keep=T
 
 def synthetic_windows(cfg):
     """The CLI's synthetic store (8 users, 2 videos, 1200 frames) → (train,
-    test) windows, with K peer futures for the cross_user family."""
+    test) windows, with K peer futures for the families that take peers."""
     store = traces.synthetic_store(n_users=8, n_videos=2, n_frames=1200, rate_hz=cfg.rate_hz, seed=cfg.seed)
-    k = cfg.n_other_users if cfg.model_family == "cross_user" else 0
+    k = cfg.n_other_users if cfg.model_family in ("cross_user", "transformer") else 0
     return data.windows_from_store(store, cfg.model.h_in, cfg.model.h_out, stride=cfg.stride, n_other_users=k)
 
 
-def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL, windows_=None):
+def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL, windows_=None, step_check=True):
     """train_loop through the kernels with evaluation and checkpoints, then
     a resume from the middle checkpoint, which must equal the uninterrupted
     run (the scheduled-sampling coins are drawn from (seed, step), so they
@@ -736,7 +775,9 @@ def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL, windows_=None):
     plain autograd, from the trained state on a fresh batch with the same
     coins, within ``step_tol`` per residual dtype. ``also``: the kernels of
     other rows the path must launch (its evaluation's serving kernels, the
-    encoder's); ``windows_`` (train, test), else the synthetic store's."""
+    encoder's); ``windows_`` (train, test), else the synthetic store's;
+    ``step_check=False`` for a family whose step has no kernel (the
+    transformer: autograd through the parallel pass, as in JAX)."""
     fam = get_family(cfg.model_family)
     train_d, test_d = windows_ or synthetic_windows(cfg)
     run = dict(device=dev, eval_data=test_d, **family_fns(fam))
@@ -779,6 +820,8 @@ def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL, windows_=None):
           f"uninterrupted| {d_resume:.3e} (tolerance 1e-6)", flush=True)
     if resumed.step != cfg.steps or not d_resume <= 1e-6:
         raise AssertionError("the resumed run differs from the uninterrupted one")
+    if not step_check:
+        return full, train_d, launches
 
     # one step, kernels against plain autograd ("xla"), same coins: loss
     # and gradients (step_tol), then the params after the update
@@ -1539,6 +1582,264 @@ def maps_step(cfg, state, dev, smi):
         raise AssertionError("the maps-mode step gave the conv stack no gradient")
 
 
+# --------------------------------------------------------------- transformer-30
+
+
+def encoder_library(params, device):
+    """The yardstick of the encoder kernel: ``nn.TransformerEncoder`` (pre-LN,
+    eps 1e-6, tanh GELU, no dropout) carrying the encoder's weights, its
+    attention biases zero; called on x = past_n · in_proj + pos, the tokens
+    after the embedding. Equal to ``transformer._encode`` for any
+    weights (tests/test_torch_transformer_encode.py). Timed here, never
+    called by the port."""
+    import functools
+
+    enc = params["enc"]
+    h = params["in_proj"].shape[1]
+    layer = torch.nn.TransformerEncoderLayer(
+        h, transformer.N_HEADS, dim_feedforward=transformer.MLP_MULT * h, dropout=0.0,
+        activation=functools.partial(torch.nn.functional.gelu, approximate="tanh"), layer_norm_eps=1e-6,
+        batch_first=True, norm_first=True)
+    net = torch.nn.TransformerEncoder(layer, num_layers=len(enc), enable_nested_tensor=False).to(device)
+    with torch.no_grad():
+        for mod, p in zip(net.layers, enc):
+            a = p["attn"]
+            mod.self_attn.in_proj_weight.copy_(torch.cat([a["wq"].t(), a["wk"].t(), a["wv"].t()]))
+            mod.self_attn.in_proj_bias.zero_()
+            mod.self_attn.out_proj.weight.copy_(a["wo"].t())
+            mod.self_attn.out_proj.bias.zero_()
+            mod.linear1.weight.copy_(p["mlp"]["w1"].t())
+            mod.linear1.bias.copy_(p["mlp"]["b1"])
+            mod.linear2.weight.copy_(p["mlp"]["w2"].t())
+            mod.linear2.bias.copy_(p["mlp"]["b2"])
+            for norm, ln in ((mod.norm1, p["ln1"]), (mod.norm2, p["ln2"])):
+                norm.weight.copy_(ln["scale"])
+                norm.bias.copy_(ln["bias"])
+    net.requires_grad_(False).eval()
+    return net
+
+
+def tf_case(dev, batch, t_in, t_out, layers=2, k=0, pool="none", window=0, seed=0):
+    """transformer-30's width (H = 128, 4 heads) with random weights (init's
+    limits, LN scales and biases moved off 1 and 0 so that they count),
+    unit-vector pasts drawn on the card, normalized, the plain encoder
+    memory and, with ``k`` peers, their tokens under a mask with a row of no
+    valid peer, a row of one, the rest valid → (model cfg, params, past_n,
+    enc_mem, y0, peer_mem, peer_valid)."""
+    m = get_preset(TF_PRESET, model_h_in=t_in, model_h_out=t_out, model_layers=layers, model_peer_pool=pool,
+                   model_peer_window=window).model
+    rng = np.random.default_rng(seed)
+    params = transformer.init(torch.Generator().manual_seed(seed), m, device=dev)
+    for leaf in [v for lay in params["enc"] + params["dec"] for sub in lay.values()
+                 for key, v in sub.items() if key in ("scale", "bias", "b1", "b2")]:
+        leaf += randn(rng, dev, leaf.shape, 0.1)
+    past = unit_rows(rng, dev, (batch, t_in))
+    past_n, _, anchor = windows.normalize_window(past)
+    past_n = past_n.contiguous()
+    enc = transformer._encode(params, m, past_n)
+    pm = pv = None
+    if k:
+        others = unit_rows(rng, dev, (batch, k, t_out)) - anchor[:, None]
+        mask = torch.ones((batch, k), device=dev)
+        mask[0] = 0.0
+        mask[1, 1:] = 0.0
+        pm, pv = (x.contiguous() for x in transformer._peer_tokens(params, m, others, mask))
+    return m, params, past_n, enc, past_n[:, -1].contiguous(), pm, pv
+
+
+def check_tf_encode(dev, batch, t, layers, seed):
+    """fused_encode_tokens against transformer._encode → max abs error."""
+    m, params, past_n, enc, *_ = tf_case(dev, batch, t, 4, layers, seed=seed)
+    out = transformer_encode.fused_encode_tokens(params, m, past_n)
+    torch.cuda.synchronize()
+    err = (out - enc).abs().max().item()
+    if out.shape != enc.shape or not torch.isfinite(out).all() or not err <= TF_TOL:
+        raise AssertionError(f"fused_encode_tokens disagrees with its plain version (B={batch}, T={t}, "
+                             f"L={layers}): {err:.3e}")
+    note_err("fused_encode_tokens", err)
+    return err
+
+
+def check_tf_decode(dev, batch, k, pool, window, seed, t=30):
+    """fused_ar_decode against transformer._ar_decode on the same memory →
+    max abs error; with peers, the row with no valid peer must equal the
+    peerless rollout."""
+    m, params, _, enc, y0, pm, pv = tf_case(dev, batch, t, t, 2, k, pool, window, seed)
+    out = transformer_decode.fused_ar_decode(params, m, enc, y0, peer_mem=pm, peer_valid=pv)
+    torch.cuda.synchronize()
+    ref = transformer._ar_decode(params, m, enc, pm, pv, y0)
+    err = (out - ref).abs().max().item()
+    if out.shape != (batch, t, 3) or not torch.isfinite(out).all() or not err <= TF_TOL:
+        raise AssertionError(f"fused_ar_decode disagrees with its plain version (B={batch}, K={k}, pool={pool}, "
+                             f"window={window}): {err:.3e}")
+    if k:
+        alone = transformer_decode.fused_ar_decode(params, m, enc, y0)
+        d0 = (out[0] - alone[0]).abs().max().item()
+        if not d0 <= TF_TOL:
+            raise AssertionError(f"a row with no valid peer differs from the peerless rollout: {d0:.3e}")
+    note_err("fused_ar_decode", err)
+    return err
+
+
+def drive_tf_serving(cfg, dev, params_np, n_single, n_bulk):
+    """Single requests that all carry ``other_future``: K peers, two (the
+    batcher pads and masks the rest), or K with an explicit all-zero mask
+    (no valid peer); one bulk request with an explicit random mask; through
+    the batcher in front of fused_encode_tokens + fused_ar_decode. Every
+    answer against the port's plain path on the CPU."""
+    params = params_from_numpy(params_np, dev)
+    m, k = cfg.model, cfg.n_other_users
+    rng = np.random.default_rng(15)
+    pasts = unit_pasts(rng, n_single + n_bulk, m.h_in)
+    others = unit_pasts(rng, (n_single + n_bulk) * k, m.h_out).reshape(-1, k, m.h_out, 3)
+    mask = np.ones((n_single + n_bulk, k), np.float32)
+    requests = []
+    for i in range(n_single):
+        kind = i % 3  # K peers, two peers, K peers all masked
+        r = {"past": pasts[i], "other_future": others[i]}
+        if kind == 1:
+            others[i, 2:] = 0.0
+            mask[i, 2:] = 0.0
+            r["other_future"] = others[i, :2]
+        if kind == 2:
+            mask[i] = 0.0
+            r["other_mask"] = mask[i]
+        requests.append(r)
+    mask[n_single:] = (rng.random((n_bulk, k)) < 0.6).astype(np.float32)
+    bulk = {"past": pasts[n_single:], "other_future": others[n_single:], "other_mask": mask[n_single:]}
+    (got, stats, _), launches = drive(TF_SERVE, lambda: serve_batched(cfg, transformer, dev, params, requests,
+                                                                      bulk))
+    batch = {"past": pasts, "other_future": others, "other_mask": mask}
+    plain = infer.make_predict_fn(params_from_numpy(params_np, "cpu"), cfg, device="cpu", impl="plain")(batch)
+    d_plain = float(np.abs(to_xyz(got) - plain.numpy()).max())
+    print(f"{TF_SERVE}: {n_single} single requests with other_future (K={k}, 2, and K all masked) + 1 bulk "
+          f"({n_bulk} rows, explicit mask) in {stats['batches']} batches; max |xyz - CPU plain path| "
+          f"{d_plain:.3e} (tolerance {ORACLE_TOL})", flush=True)
+    if not d_plain <= ORACLE_TOL:
+        raise AssertionError("transformer-30 answers disagree with the CPU plain path")
+    return params, launches
+
+
+def tf_work(m, batch, kt, attended):
+    """FLOP of the encoder and of the decode at width H for ``batch`` rows →
+    (encoder, decode). The decode counts its cross and peer K/V projections
+    (``kt`` peer tokens a row) and the attention over what this run's data
+    attends: ``attended`` peer tokens, summed over rows and steps."""
+    h, t_in, t_out, layers, d = m.hidden, m.h_in, m.h_out, m.layers, m.d
+    enc = 2 * batch * t_in * (d * h + layers * (12 * h * h + 2 * t_in * h))
+    cache_rows = batch * t_out * (t_out + 1) // 2  # step t attends t + 1 cache rows
+    products = (16 if kt else 14) * h * h
+    dec = 2 * layers * (batch * t_out * (products + 2 * t_in * h) + 2 * h * cache_rows + 2 * h * attended)
+    dec += 2 * batch * t_out * 2 * d * h  # output projection and the fed-back token's embedding
+    dec += 2 * layers * 2 * h * h * batch * (t_in + kt)  # the cross and peer K, V
+    return enc, dec
+
+
+def time_tf_kernels(dev, params, cfg, batch, smi, keep):
+    """Both transformer kernels alone at a serving batch with K peers,
+    checked first, against their plain versions (the encoder also against
+    the nn.TransformerEncoder yardstick), in turns; ``keep``: their numbers
+    go to the kernels line. The decode has no library call (AR decode with
+    feedback). Bytes: every input read once (past, weights; the decode's
+    encoder memory, peer tokens and validity, y0), every output written
+    once; FLOP: tf_work, the decode's peer K/V projections included."""
+    m, k = cfg.model, cfg.n_other_users
+    rng = np.random.default_rng(16)
+    past_n, _, anchor = windows.normalize_window(unit_rows(rng, dev, (batch, m.h_in)))
+    past_n = past_n.contiguous()
+    others = unit_rows(rng, dev, (batch, k, m.h_out)) - anchor[:, None]  # as batch_extras anchors them
+    net = encoder_library(params, dev)
+    emb = past_n @ params["in_proj"] + transformer._pos_enc(m.h_in, m.hidden, device=dev)
+    with torch.inference_mode():
+        enc = transformer_encode.fused_encode_tokens(params, m, past_n)
+        ref = transformer._encode(params, m, past_n)
+        err_e = (enc - ref).abs().max().item()
+        lib_err = (net(emb) - ref).abs().max().item()
+        if not err_e <= TF_TOL:
+            raise AssertionError(f"fused_encode_tokens at B={batch} disagrees with its plain version: {err_e:.3e}")
+        note_err("fused_encode_tokens", err_e)
+        ms_e = in_turns({"plain": lambda: transformer._encode(params, m, past_n),
+                         "kernel": lambda: transformer_encode.fused_encode_tokens(params, m, past_n),
+                         "library": lambda: net(emb)}, {"plain": 2, "kernel": 3, "library": 3})
+        pm, pv = (x.contiguous() for x in transformer._peer_tokens(params, m, others, None))
+        y0 = past_n[:, -1].contiguous()
+        out = transformer_decode.fused_ar_decode(params, m, ref, y0, peer_mem=pm, peer_valid=pv)
+        err_d = (out - transformer._ar_decode(params, m, ref, pm, pv, y0)).abs().max().item()
+        if not err_d <= TF_TOL:
+            raise AssertionError(f"fused_ar_decode at B={batch} disagrees with its plain version: {err_d:.3e}")
+        note_err("fused_ar_decode", err_d)
+        ms_d = in_turns({"plain": lambda: transformer._ar_decode(params, m, ref, pm, pv, y0),
+                         "kernel": lambda: transformer_decode.fused_ar_decode(params, m, ref, y0, peer_mem=pm,
+                                                                            peer_valid=pv)},
+                        {"plain": 1, "kernel": 2})
+    enc_flop, dec_flop = tf_work(m, batch, pm.shape[1], int(pv.sum()) * m.h_out)
+    weights = tree_leaves(params)
+    io = {"fused_encode_tokens": (enc_flop, [past_n, params["in_proj"]] + tree_leaves(params["enc"]), [enc]),
+          "fused_ar_decode": (dec_flop, [ref, y0, pm, pv] + weights, [out])}
+    for name, ms in (("fused_encode_tokens", ms_e), ("fused_ar_decode", ms_d)):
+        b_ms, b_by = bound(io[name][0], *io[name][1:])
+        if keep:
+            record(name, ms, *io[name])
+        print(f"{name} alone (B={batch}, L={m.layers}, {m.h_in}+{m.h_out} steps, K={k}: {pm.shape[1]} peer "
+              f"tokens; ms, CUDA events, {smi}): {json.dumps(ms)}; bound {b_ms:.3f} ms by {b_by} "
+              f"({io[name][0] / ms['kernel'] / 1e9:.2f} TFLOP/s); max_abs_err vs plain "
+              f"{err_e if name == 'fused_encode_tokens' else err_d:.3e} (tolerance {TF_TOL})"
+              + (f"; library nn.TransformerEncoder vs plain {lib_err:.3e}" if name == "fused_encode_tokens"
+                 else "; library: none (AR decode with feedback)"), flush=True)
+
+
+def tf_grad_check(cfg, state, train_d):
+    """One step's loss and gradients on the card against the CPU port's, on
+    the same batch with the same noisy-teacher-forcing noise (N(0, 1) from
+    numpy, swapped in for the generator's draw on both sides) at a
+    mid-anneal teacher_prob: within STEP_REL_TOL["float32"] of max|CPU| per
+    leaf (f32 on both sides, sums in another order)."""
+    fam = transformer
+    batch = next(train.batch_iterator(train_d, 512, seed=4))
+    noise = torch.from_numpy(np.random.default_rng(17).normal(size=(512, cfg.model.h_out, 3)).astype(np.float32))
+    draw = fam.draw_noise
+    fam.draw_noise = lambda gen, shape: noise.to(gen.device)
+    try:
+        tp = train.teacher_prob_at(cfg, cfg.steps // 2)
+        res = {}
+        cpu = tree_unflatten(state.params, [p.cpu() for p in tree_leaves(state.params)])
+        grad_fn = train.make_grad_fn(cfg, fam.apply, extras_fn=fam.batch_extras, gc_metric=False)
+        for where, params in (("card", state.params), ("cpu", cpu)):
+            res[where] = grad_fn(params, batch, torch.Generator(device=params["in_proj"].device), tp)
+    finally:
+        fam.draw_noise = draw
+    (l_k, _), g_k = res["card"]
+    (l_p, _), g_p = res["cpu"]
+    g_err = max((a.cpu() - b).abs().max().item() / (b.abs().max().item() or 1.0)
+                for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)))
+    l_err = abs(l_k.item() - l_p.item()) / abs(l_p.item())
+    rel = STEP_REL_TOL["float32"]
+    print(f"{TF_TRAIN}: one step (B=512, teacher_prob {tp:.3f}, the same noise), card vs CPU: loss {l_err:.2e}, "
+          f"grads {g_err:.2e} of max|CPU| per leaf (tolerance {rel})", flush=True)
+    if not (g_err <= rel and l_err <= rel):
+        raise AssertionError("the transformer step on the card differs from the CPU port's")
+
+
+def time_tf_step(cfg, state, train_d, smi, iters=10):
+    """The fast train step of transformer-30 (autograd through the parallel
+    pass: no kernel, as in JAX) → a callable that runs one more, for the
+    profile."""
+    fam = transformer
+    batch = next(train.batch_iterator(train_d, cfg.batch_size, seed=2))
+    step = train.make_train_step(cfg, fam.apply, train.make_optimizer(cfg), gc_metric=False,
+                                 extras_fn=fam.batch_extras)
+    st = {"s": state}
+
+    def one():
+        st["s"] = step(st["s"], batch)[0]
+
+    ms = cuda_ms(one, iters)
+    print(f"{TF_TRAIN}: train step (B={cfg.batch_size}, fast step, noisy teacher forcing, CUDA events, {smi}): "
+          f"{json.dumps({'ms_per_step': ms, 'steps_per_sec': 1e3 / ms, 'windows_per_sec': cfg.batch_size * 1e3 / ms})}",
+          flush=True)
+    return one
+
+
 # --------------------------------------------------------------- main
 
 
@@ -1558,7 +1859,8 @@ def main():
 
     phase("2 build")
     # 2. build every kernel source, one nvcc each, started together
-    sources = ("fused_serve", "lstm_train", "lstm_ss", "lstm_align", "conv_resize")
+    sources = ("fused_serve", "lstm_train", "lstm_ss", "lstm_align", "conv_resize", "transformer_encode",
+               "transformer_decode")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         builds = dict(zip(sources, pool.map(_build.build, sources)))
     for name, b in builds.items():
@@ -1661,10 +1963,34 @@ def main():
     step = time_training(ftcfg, ftrained, ftrain_d, FU_TRAIN, smi, plain_iters=2)
     profile_device(f"{FU_TRAIN}: fast step", step, 5, smi)
     maps_step(ftcfg, ftrained, dev, smi)
+    del step, ftrained
+    torch.cuda.empty_cache()
+
+    phase("13 serve transformer-30")
+    # 13. transformer-30 serving: K = 4 per-row peers in every request, the
+    # encoder and decode kernels; serve-bench, a profile, the kernels alone
+    tfcfg = get_preset(TF_PRESET)
+    tparams, tf_serve = drive_tf_serving(tfcfg, dev, cli.bench_params_np(tfcfg, 0), 48, 200)
+    serve_bench(TF_PRESET, ((16384, 3), (65536, 2)), smi)
+    profile_device(f"{TF_SERVE}: serve call at B=16384", serve_call(tfcfg, tparams, dev, 16384), 2, smi)
+    for batch in (65536, 16384):  # the last one's numbers go to the kernels line
+        time_tf_kernels(dev, tparams, tfcfg, batch, smi, keep=batch == 16384)
+    torch.cuda.empty_cache()
+
+    phase("14 train transformer-30")
+    # 14. transformer-30 training: autograd through the parallel pass (no
+    # kernel in the step, as in JAX), noisy teacher forcing 1 → 0.3 with its
+    # noise from (seed, step); evaluation serves through both kernels
+    ttcfg = get_preset(TF_PRESET, batch_size=TRAIN_B, steps=20, eval_every=10, ckpt_every=10)
+    ttrained, ttrain_d, tf_train = drive_training(ttcfg, TF_TRAIN, dev, also=[
+        "fused_encode_tokens", "fused_ar_decode"], step_check=False)
+    tf_grad_check(ttcfg, ttrained, ttrain_d)
+    step = time_tf_step(ttcfg, ttrained, ttrain_d, smi)
+    profile_device(f"{TF_TRAIN}: fast step", step, 5, smi)
 
     phase("done")
     launches = {S2S_SERVE: s2s_serve, S2S_TRAIN: s2s_train, CU_SERVE: cu_serve, CU_TRAIN: cu_train,
-                CU10_SERVE: cu10_serve, CU10_TRAIN: cu10_train, FE_PATH: fe_launches}
+                CU10_SERVE: cu10_serve, CU10_TRAIN: cu10_train, FE_PATH: fe_launches, TF_SERVE: tf_serve}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
          "launches": launches[path][name], "max_abs_err": ERRS[name], **TIMES[name]}

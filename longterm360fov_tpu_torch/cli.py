@@ -66,10 +66,17 @@ def bench_params_np(cfg, seed: int) -> dict:
     a Glorot-uniform peer encoder (forget-gate bias 1), for fusion the conv
     stack (4 filters N(0, 1/9), a Glorot-uniform head) and the feature MLP
     (Glorot-uniform), as ``models.fusion.init`` draws them, with zero
-    biases."""
+    biases. The transformer's tree is ``models.transformer.init`` on a
+    ``torch.Generator`` seeded with ``seed``, as numpy."""
     from . import oracle
     from .models.cell import LSTMParams
 
+    if cfg.model_family == "transformer":
+        from .models import transformer
+        from .params import walk
+
+        tree = transformer.init(torch.Generator().manual_seed(seed), cfg.model, device="cpu")
+        return walk(tree, lambda _, t: t.numpy())
     tree = oracle.init_params_np(seed, cfg.model)
     if cfg.model_family == "cross_user":
         m = cfg.model
@@ -108,7 +115,8 @@ def serve_bench(
     denormalize → tile mask) on ``batch`` random viewers, after one warm-up
     call. Weights are :func:`bench_params_np`; the inputs are drawn on
     ``device`` from a ``torch.Generator`` seeded with ``seed``. A family
-    that takes peers (cross_user) gets ``n_other_users`` random unit-vector
+    that takes peers (cross_user, transformer) gets ``n_other_users``
+    random unit-vector
     peer futures per viewer (``peers`` >= 0 overrides the preset's K), as
     the JAX ``serve-bench`` draws them; ``peer_align`` sets the time-aligned
     peer context (``--peer-align``). The fusion family gets one N(0, 1)

@@ -1,0 +1,294 @@
+// Transformer autoregressive-decode kernel for Hopper (sm_90a), exact f32,
+// in the per-row tiers: no peers, and per-row peer K/V with peer_pool
+// "none" or "mean" and an optional peer window.
+//
+// Replaces the TPU Pallas kernel of
+//   longterm360fov_tpu/ops/transformer_decode.py::fused_ar_decode
+//   (_decode_kernel)
+// which runs the whole rollout in one launch: per step t and layer l,
+//   x += Wo·attend(q, self K/V cache)       q, k, v = LN1(x)·Wq, Wk, Wv;
+//                                            k, v appended at row t
+//   x += Wo_c·attend(LN2(x)·Wq_c, cross K/V) over the T_in encoder tokens
+//   x += Wo_p·attend(LN3(x)·Wq_p, peer K/V)  over the valid peer tokens
+//                                            (|t_k - t| <= w when windowed),
+//                                            0 where there is none
+//   x += W2·gelu(W1·LN4(x) + b1) + b2
+// then y = LN_f(x)·Wout + bout, written out and fed back as the next token
+// (x = y·in_proj + pos[t + 1]). The cross and peer K/V are projected
+// outside, once (the wrapper's torch.matmul, as JAX's project_kv). On the
+// TPU all caches stay resident in ~100 MB of VMEM for the rollout.
+//
+// What bounds it on the card (transformer-30: L = 2, H = 128, T_in = T_out
+// = 30, K = 4 peers: K·T = 120 peer tokens):
+//   * Operations: 16·H² MACs a row-layer-step for the products and about
+//     42 K for the attention: 36.5 MFLOP a row, 0.60 TFLOP at B = 16384,
+//     8.9 ms at the 67 TFLOP/s f32 FMA peak.
+//   * Bytes: the K/V the rollout reads, counted once, is 5.0 GB at
+//     B = 16384 (1.5 ms at 3.35 TB/s). But the caches do not fit on chip:
+//     per row and layer the peer K/V is 123 KB, the cross K/V 31 KB, the
+//     self K/V 31 KB, 370 KB a row over two layers against 227 KB of shared
+//     memory a block. They live in device memory, and every step re-reads
+//     them: about 151 GB at B = 16384, 45 ms at 3.35 TB/s, five times the
+//     operations bound. This simple design is up against that re-read.
+// What the design does about it:
+//   * A block holds 64 batch rows' activations in shared memory
+//     (transformer_common.cuh) and runs every product of a step as gemm64:
+//     one weight element read from L2 feeds 64 FMAs; the 2.1 MB of decoder
+//     weights stay in L2 and stream through a cp.async ring in shared memory.
+//   * The attention is a warp a row, all four heads at once (8 lanes a
+//     head): each token's K and V row is one coalesced 512-byte read, eight
+//     tokens in flight a warp, an online softmax over them. Masked peer
+//     tokens and those outside the window are not read: the work follows
+//     the data. A position with no attendable peer token adds exactly 0, as
+//     the model's per-position gate does.
+//   * The self cache (2, L, B, T_out, H) is written at row t and read at
+//     rows < t only, so the wrapper allocates it uninitialized; the current
+//     token's k, v come from shared memory.
+// Later work (not here): bf16 K/V (half the bytes), keeping a block's K/V
+// on chip across steps, the products on the tensor cores.
+
+#include "transformer_common.cuh"
+
+#define MAX_LAYERS 8
+#define MAX_D 4
+
+namespace {
+
+using namespace tfm;
+
+// a layer's weights and projected memories: ln1 scale and bias; self wq,
+// wk, wv, wo; ln2; cross wq, wo and the cross K, V (batch, t_in, H); ln3;
+// peer wq, wo and the peer K, V (batch, kt, H) (null without peers); ln4;
+// w1, b1, w2, b2
+enum DecPtr {
+  LN1_S, LN1_B, S_WQ, S_WK, S_WV, S_WO,
+  LN2_S, LN2_B, C_WQ, C_WO, C_K, C_V,
+  LN3_S, LN3_B, P_WQ, P_WO, P_K, P_V,
+  LN4_S, LN4_B, W1, B1, W2, B2, DEC_PTRS
+};
+
+struct DecParams {
+  const float* layer[MAX_LAYERS][DEC_PTRS];
+  const float* w_in;   // (d, H)
+  const float* w_out;  // (H, d)
+  const float* b_out;  // (d,)
+  const float* fln_s;  // final LN scale, bias (H,)
+  const float* fln_b;
+  const float* pos;    // (t_out, H) positional encoding
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
+                 const unsigned char* __restrict__ peer_valid,
+                 float* self_kv, float* __restrict__ out, int batch,
+                 int layers, int t_in, int t_out, int d, int kt, int window,
+                 int seg) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* hs = xs + ROWS * LDX;
+  float* big = hs + ROWS * LDX;
+  float* qb = big;
+  float* kb = big + ROWS * LDX;
+  float* vb = big + 2 * ROWS * LDX;
+  float* ab = big + 3 * ROWS * LDX;
+  float* ws = big + BIG;  // gemm64's ring of weight slabs
+  float* ys = ws + WS_FLOATS;  // (ROWS, MAX_D) the fed-back token
+  const int b0 = blockIdx.x * ROWS;
+  const int nrows = min(ROWS, batch - b0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t layer_stride = (size_t)batch * t_out * H;  // one layer's self K (or V)
+
+  zero_smem(xs, SMEM_FLOATS + ROWS * MAX_D);
+  __syncthreads();
+  for (int e = threadIdx.x; e < nrows * d; e += THREADS)
+    ys[(e / d) * MAX_D + e % d] = y0[(size_t)b0 * d + e];
+  __syncthreads();
+
+  auto store_to = [](float* dst) {
+    return [dst](int r0, int c0, const float (&acc)[4][8]) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float* o = dst + (r0 + r) * LDX + c0;
+        *reinterpret_cast<float4*>(o) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        *reinterpret_cast<float4*>(o + 4) = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+      }
+    };
+  };
+  auto add_to_x = [xs](int r0, int c0, const float (&acc)[4][8]) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) xs[(r0 + r) * LDX + c0 + c] += acc[r][c];
+  };
+
+  for (int t = 0; t < t_out; ++t) {
+    // x = y · in_proj + pos[t]
+    for (int e = threadIdx.x; e < ROWS * H; e += THREADS) {
+      const int r = e / H, n = e - r * H;
+      float acc = ys[r * MAX_D] * __ldg(p.w_in + n);
+      for (int i = 1; i < d; ++i) acc = fmaf(ys[r * MAX_D + i], __ldg(p.w_in + i * H + n), acc);
+      xs[r * LDX + n] = acc + __ldg(p.pos + t * H + n);
+    }
+    __syncthreads();
+    for (int l = 0; l < layers; ++l) {
+      const float* const* w = p.layer[l];
+      // -- self attention over the cache, this step's k, v appended
+      layer_norm(xs, hs, w[LN1_S], w[LN1_B]);
+      __syncthreads();
+      gemm64(hs, LDX, H, w[S_WQ], H, 0, ws, store_to(qb));
+      gemm64(hs, LDX, H, w[S_WK], H, 0, ws, store_to(kb));
+      gemm64(hs, LDX, H, w[S_WV], H, 0, ws, store_to(vb));
+      __syncthreads();
+      for (int r = warp; r < nrows; r += THREADS / 32) {
+        const size_t row = ((size_t)l * batch + b0 + r) * t_out * H;
+        float* kc = self_kv + row;
+        float* vc = self_kv + (size_t)layers * layer_stride + row;
+        const float4 k = *reinterpret_cast<const float4*>(kb + r * LDX + 4 * lane);
+        const float4 v = *reinterpret_cast<const float4*>(vb + r * LDX + 4 * lane);
+        reinterpret_cast<float4*>(kc + (size_t)t * H)[lane] = k;
+        reinterpret_cast<float4*>(vc + (size_t)t * H)[lane] = v;
+        Attend a;
+        a.init(*reinterpret_cast<const float4*>(qb + r * LDX + 4 * lane));
+        a.range<false, 8>(kc, vc, H, 0, t, nullptr);
+        a.add(k, v);
+        *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = a.out();
+      }
+      __syncthreads();
+      gemm64(ab, LDX, H, w[S_WO], H, 0, ws, add_to_x);
+      __syncthreads();
+      // -- cross attention over the encoder's K/V
+      layer_norm(xs, hs, w[LN2_S], w[LN2_B]);
+      __syncthreads();
+      gemm64(hs, LDX, H, w[C_WQ], H, 0, ws, store_to(qb));
+      __syncthreads();
+      for (int r = warp; r < nrows; r += THREADS / 32) {
+        const size_t row = (size_t)(b0 + r) * t_in * H;
+        Attend a;
+        a.init(*reinterpret_cast<const float4*>(qb + r * LDX + 4 * lane));
+        a.range<true, 8>(w[C_K] + row, w[C_V] + row, H, 0, t_in, nullptr);
+        *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = a.out();
+      }
+      __syncthreads();
+      gemm64(ab, LDX, H, w[C_WO], H, 0, ws, add_to_x);
+      __syncthreads();
+      // -- peer attention over the valid (and in-window) peer tokens
+      if (kt > 0) {
+        layer_norm(xs, hs, w[LN3_S], w[LN3_B]);
+        __syncthreads();
+        gemm64(hs, LDX, H, w[P_WQ], H, 0, ws, store_to(qb));
+        __syncthreads();
+        for (int r = warp; r < nrows; r += THREADS / 32) {
+          const size_t row = (size_t)(b0 + r) * kt;
+          const float* pk = w[P_K] + row * H;
+          const float* pv = w[P_V] + row * H;
+          const unsigned char* valid = peer_valid + row;
+          Attend a;
+          a.init(*reinterpret_cast<const float4*>(qb + r * LDX + 4 * lane));
+          if (window <= 0) {
+            a.range<true, 8>(pk, pv, H, 0, kt, valid);
+          } else {
+            // token i sits at t_k = i % seg of its segment: per segment, the
+            // tokens with |t_k - t| <= window
+            for (int s0 = 0; s0 < kt; s0 += seg)
+              a.range<true, 8>(pk, pv, H, s0 + max(0, t - window),
+                            min(kt, min(s0 + seg, s0 + t + window + 1)), valid);
+          }
+          *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = a.out();
+        }
+        __syncthreads();
+        gemm64(ab, LDX, H, w[P_WO], H, 0, ws, add_to_x);
+        __syncthreads();
+      }
+      // -- MLP: u = gelu(LN4(x) · W1 + b1) into big, then x += u · W2 + b2
+      layer_norm(xs, hs, w[LN4_S], w[LN4_B]);
+      __syncthreads();
+      const float* b1 = w[B1];
+      auto gelu_to_u = [big, b1](int r0, int c0, const float (&acc)[4][8]) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            big[(r0 + r) * LDU + c0 + c] = gelu_tanh(acc[r][c] + __ldg(b1 + c0 + c));
+      };
+      for (int n0 = 0; n0 < MLP; n0 += H) gemm64(hs, LDX, H, w[W1], MLP, n0, ws, gelu_to_u);
+      __syncthreads();
+      const float* b2 = w[B2];
+      auto mlp_to_x = [xs, b2](int r0, int c0, const float (&acc)[4][8]) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) xs[(r0 + r) * LDX + c0 + c] += acc[r][c] + __ldg(b2 + c0 + c);
+      };
+      gemm64(big, LDU, MLP, w[W2], H, 0, ws, mlp_to_x);
+      __syncthreads();
+    }
+    // y = LN_f(x) · Wout + bout: out[b, t], and the next step's token
+    layer_norm(xs, hs, p.fln_s, p.fln_b);
+    __syncthreads();
+    for (int r = warp; r < nrows; r += THREADS / 32) {
+      const float4 h = *reinterpret_cast<const float4*>(hs + r * LDX + 4 * lane);
+      for (int i = 0; i < d; ++i) {
+        const float* wo = p.w_out + (4 * lane) * d + i;
+        float s = h.x * __ldg(wo);
+        s = fmaf(h.y, __ldg(wo + d), s);
+        s = fmaf(h.z, __ldg(wo + 2 * d), s);
+        s = fmaf(h.w, __ldg(wo + 3 * d), s);
+        const float y = warp_sum(s) + __ldg(p.b_out + i);
+        if (lane == 0) {
+          out[((size_t)(b0 + r) * t_out + t) * d + i] = y;
+          ys[r * MAX_D + i] = y;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// One launch on `stream`: grid ceil(batch / 64) blocks of 256 threads,
+// 210,944 + 1,024 bytes of dynamic shared memory. y0 (batch, d) f32,
+// peer_valid (batch, kt) bytes (0 = masked; null when kt = 0), self_kv
+// (2, layers, batch, t_out, 128) f32 scratch, out (batch, t_out, d) f32;
+// layer_ptrs holds 24 device pointers a layer in DecPtr's order (the peer
+// ones null when kt = 0). window <= 0: no peer window; else token i of the
+// peer memory is attended at step t when |i % seg - t| <= window. Returns
+// cudaGetLastError() (0 = ok), or cudaErrorInvalidValue for a shape the
+// kernel does not take.
+int transformer_decode_f32(const void* y0, const void* peer_valid, void* self_kv, void* out,
+                           const void* const* layer_ptrs, const void* w_in, const void* w_out,
+                           const void* b_out, const void* fln_s, const void* fln_b,
+                           const void* pos, int batch, int layers, int t_in, int t_out, int d,
+                           int kt, int window, int seg, void* stream) {
+  if (batch < 1 || layers < 1 || layers > MAX_LAYERS || t_in < 1 || t_out < 1 || d < 1 ||
+      d > MAX_D || kt < 0 || (kt > 0 && (peer_valid == nullptr || seg < 1)))
+    return (int)cudaErrorInvalidValue;
+  DecParams p = {};
+  for (int l = 0; l < layers; ++l)
+    for (int i = 0; i < DEC_PTRS; ++i)
+      p.layer[l][i] = static_cast<const float*>(layer_ptrs[l * DEC_PTRS + i]);
+  p.w_in = static_cast<const float*>(w_in);
+  p.w_out = static_cast<const float*>(w_out);
+  p.b_out = static_cast<const float*>(b_out);
+  p.fln_s = static_cast<const float*>(fln_s);
+  p.fln_b = static_cast<const float*>(fln_b);
+  p.pos = static_cast<const float*>(pos);
+  const size_t smem = (SMEM_FLOATS + ROWS * MAX_D) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ar_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (batch + ROWS - 1) / ROWS;
+  ar_decode_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<const float*>(y0), static_cast<const unsigned char*>(peer_valid),
+      static_cast<float*>(self_kv), static_cast<float*>(out), batch, layers, t_in, t_out, d,
+      kt, window, seg);
+  return (int)cudaGetLastError();
+}
+
+const char* transformer_decode_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -17,6 +17,7 @@ import torch
 
 from . import geometry, losses
 from .config import ExperimentConfig
+from .params import params_device
 
 __all__ = ["evaluate", "evaluate_predictions", "comparison_table"]
 
@@ -36,7 +37,7 @@ def evaluate(
     from .models import get_family
 
     fam = get_family(cfg.model_family)
-    device = params["proj"]["w"].device
+    device = params_device(params)
     n = len(data["past"])
     bs = min(batch_size or 512, n)
     sums = np.zeros(data["future"].shape[1], np.float64)

@@ -8,7 +8,7 @@ families are ported.
 
 from __future__ import annotations
 
-from . import cell, cross_user, fusion, seq2seq  # noqa: F401
+from . import cell, cross_user, fusion, seq2seq, transformer  # noqa: F401
 
 
 def get_family(name: str):
@@ -20,8 +20,5 @@ def get_family(name: str):
     if name == "fusion":
         return fusion
     if name == "transformer":
-        raise NotImplementedError(
-            f"model family {name!r} is not ported yet (ROADMAP.md, slice "
-            f"{name!r})"
-        )
+        return transformer
     raise KeyError(f"unknown model family {name!r}")

@@ -30,7 +30,7 @@ import torch
 
 from . import seq2seq
 from .cell import init_lstm, lstm_cell
-from .seq2seq import Seq2SeqConfig
+from .seq2seq import Seq2SeqConfig, check_cell
 
 __all__ = [
     "init",
@@ -195,6 +195,7 @@ def apply(
 ) -> torch.Tensor:
     """Forward pass; peers → context → seq2seq. With no peers (or all
     masked) the context is zeros, identical to plain seq2seq."""
+    check_cell(cfg)
     if context is None:
         if other_future_n is not None and cfg.peer_align:
             context = encode_peers_aligned(params, cfg, other_future_n, other_mask)
@@ -221,6 +222,7 @@ def apply_fused_tf(
     """Teacher-forced forward entirely on the training kernels, the peer
     encoder included. Under ``peer_align`` with peers: scheduled sampling
     with every coin heads on the lockstep kernels."""
+    check_cell(cfg)
     if cfg.peer_align and other_future_n is not None and context is None:
         coins = past_n.new_ones((future_n.shape[1], past_n.shape[0], 1), dtype=torch.float32)
         return _apply_fused_aligned(params, cfg, past_n, future_n, other_future_n=other_future_n,
@@ -253,6 +255,7 @@ def apply_fused_ss(
     ``lstm_seq_states`` and the peers and decoder on ``aligned_ss_decode``.
     The coins are ``coins`` (H_out, B, 1), or drawn from ``rng`` at
     ``teacher_prob`` as ``seq2seq.apply`` draws them."""
+    check_cell(cfg)
     if cfg.peer_align and other_future_n is not None and context is None:
         if coins is None:
             if rng is None:
@@ -285,6 +288,7 @@ def serve_fused(
     ``peer_align`` with peers, the lockstep tier of ``fused_serve``: step
     t's context is the mask-weighted mean of the peer encoders' hidden
     states at step t; a peer span other than h_out raises."""
+    check_cell(cfg)
     if cfg.peer_align and other_future_n is not None and context is None:
         from ..ops.fused_lstm import fused_serve
 

@@ -25,6 +25,7 @@ from .cell import init_lstm, lstm_cell
 
 __all__ = [
     "Seq2SeqConfig",
+    "check_cell",
     "init",
     "apply",
     "decode",
@@ -60,6 +61,18 @@ class Seq2SeqConfig:
 
 
 Params = Dict[str, Any]
+
+
+def check_cell(cfg: Seq2SeqConfig):
+    """Raise unless ``cfg.cell`` is "xla". The JAX package's "pallas" cell
+    runs its ``fused_lstm_cell`` TPU kernel, which the port has not ported
+    (ROADMAP.md Queue 2 #2, slice I): the plain cell in its place would be a
+    silent fallback."""
+    if cfg.cell != "xla":
+        raise NotImplementedError(
+            f"cell={cfg.cell!r}: the fused LSTM cell kernel is not ported yet "
+            f"(ROADMAP.md Queue 2 #2, slice I); the port runs cell='xla'"
+        )
 
 
 def init(gen: torch.Generator, cfg: Seq2SeqConfig, *, device) -> Params:
@@ -146,6 +159,7 @@ def apply(
     ``context``: optional (B, ctx_dim) vector appended to every decoder
     input, or (B, H_out, ctx_dim) where step t gets ``context[:, t]``.
     """
+    check_cell(cfg)
     if future_n is not None and coins is None and rng is not None:
         coins = draw_coins(rng, teacher_prob, cfg.h_out, past_n.shape[0])
     dt = cfg.dtype
@@ -212,6 +226,7 @@ def apply_fused_tf(
     context from the peers inside ``ops.lstm_align.aligned_ss_decode``:
     ``cross_user.apply_fused_tf``), and bf16 ``compute_dtype`` (ROADMAP.md
     Queue 2, the lstm_seq_states bf16-compute tier)."""
+    check_cell(cfg)
     if context is not None and context.dim() != 2:
         raise NotImplementedError(
             "seq2seq.apply_fused_tf takes a static (B, C) context; a per-step "
@@ -263,6 +278,7 @@ def apply_fused_ss(
     from ..ops.lstm_ss import ss_decode
     from ..ops.lstm_train import lstm_seq_states
 
+    check_cell(cfg)
     batch = past_n.shape[0]
     z = past_n.new_zeros((cfg.layers, batch, cfg.hidden), dtype=torch.float32)
     _, hT, cT = lstm_seq_states(
@@ -300,6 +316,7 @@ def serve_fused(
     # imports this module
     from ..ops.fused_lstm import fused_serve
 
+    check_cell(cfg)
     return fused_serve(
         params["encoder"],
         params["decoder"],

@@ -1,0 +1,154 @@
+"""Transformer autoregressive decode, per-row tiers: the hand-written CUDA
+kernel and its plain PyTorch version.
+
+Twin of ``longterm360fov_tpu.ops.transformer_decode.fused_ar_decode`` in
+its f32 per-row tiers: no peers, and per-row peer memory with
+``peer_pool`` "none" (K·T_out tokens) or "mean" (T_out tokens), with or
+without the peer window ``|t_k - t| <= cfg.peer_window``. The whole rollout
+(per step and layer: LN, causal self-attention over the KV cache,
+cross-attention to the encoder K/V, peer attention, tanh-GELU MLP; then the
+final LN, the output projection and the feedback) → ``(B, T_out, D)`` f32.
+
+* The plain version is ``models.transformer._ar_decode`` given the same
+  encoder memory and peer memory.
+* :func:`fused_ar_decode`, the wrapper: on CPU tensors it runs the plain
+  version; on CUDA tensors it projects the cross and peer K/V once with
+  ``torch.matmul`` in exact f32 (JAX's ``project_kv`` runs outside the
+  Pallas kernel too) and launches ``csrc/transformer_decode.cu``, whose
+  header says what bounds it and what its design does about that, or
+  raises: on an input that requires grad (no backward, on both devices), on
+  a non-contiguous input, on a type or shape it does not take. It never
+  falls back. ``.launches`` counts its kernel launches.
+
+The model gates peer attention per position, the TPU kernel per row; the
+CUDA kernel follows the model (a position whose window holds no valid token
+adds exactly 0). It keeps the K/V in device memory, so it has no limit of
+its own on K·T: past what the card's memory holds, the allocation raises.
+The group-shared and streamed tiers (ROADMAP.md slice H) and bf16 (slice I)
+are not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..models import transformer
+from ..params import tree_leaves
+from . import _build
+from .fused_lstm import _no_tf32
+from .transformer_encode import HIDDEN, MAX_LAYERS, check_card_tensors, layer_pointers, refuse_grad
+
+__all__ = ["fused_ar_decode", "MAX_D"]
+
+MAX_D = 4  # csrc/transformer_decode.cu MAX_D: coordinates a token
+
+# the weights of a layer, for the shape checks
+_DEC_WEIGHTS = tuple((sub, leaf) for sub in ("ln1", "ln2", "ln3", "ln4") for leaf in ("scale", "bias")) + tuple(
+    (sub, leaf) for sub in ("self_attn", "cross_attn", "peer_attn") for leaf in ("wq", "wk", "wv", "wo")) + tuple(
+    ("mlp", leaf) for leaf in ("w1", "b1", "w2", "b2"))
+
+
+def _layer_tensors(layer, ck, cv, pk, pv):
+    """A layer's tensors in the kernel's DecPtr order, with its projected
+    cross K, V and peer K, V (None without peers)."""
+    sa, ca, pa, m = layer["self_attn"], layer["cross_attn"], layer["peer_attn"], layer["mlp"]
+
+    def ln(name):
+        return [layer[name]["scale"], layer[name]["bias"]]
+
+    return [*ln("ln1"), sa["wq"], sa["wk"], sa["wv"], sa["wo"], *ln("ln2"), ca["wq"], ca["wo"], ck, cv,
+            *ln("ln3"), pa["wq"], pa["wo"], pk, pv, *ln("ln4"), m["w1"], m["b1"], m["w2"], m["b2"]]
+
+
+def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, peer_mem=None,
+                    peer_valid=None, compute_dtype=torch.float32) -> torch.Tensor:
+    """Whole-horizon decode → (B, cfg.h_out, D) f32 from ``enc_mem``
+    (B, T_in, H) and the last observed position ``y0`` (B, D); with peers,
+    ``peer_mem`` (B, KT, H) and ``peer_valid`` (B, KT) bool, as
+    ``transformer._peer_tokens`` gives them. One kernel launch on the card
+    (the plain ``transformer._ar_decode`` on CPU tensors). The bf16
+    ``compute_dtype`` raises (ROADMAP.md, slice I)."""
+    if compute_dtype != torch.float32:
+        raise NotImplementedError(
+            f"fused_ar_decode: only the exact f32 tier is ported, got "
+            f"compute_dtype={compute_dtype} (ROADMAP.md, slice I)"
+        )
+    if (peer_mem is None) != (peer_valid is None):
+        raise ValueError("peer_mem and peer_valid come together")
+    if enc_mem.dim() != 3 or y0.dim() != 2 or y0.shape[0] != enc_mem.shape[0] or min(enc_mem.shape) < 1:
+        raise ValueError(f"expected enc_mem (B, T_in, H) and y0 (B, D), got {tuple(enc_mem.shape)} "
+                         f"and {tuple(y0.shape)}")
+    refuse_grad([enc_mem, y0, peer_mem, *tree_leaves(params)], "fused_ar_decode")
+    if enc_mem.device.type == "cpu":
+        return transformer._ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0)
+    if enc_mem.device.type != "cuda":
+        raise ValueError(f"fused_ar_decode runs on cpu or cuda, not {enc_mem.device}")
+    _no_tf32(enc_mem, "fused_ar_decode")
+    batch, t_in, h = enc_mem.shape
+    d, t_out, dev = y0.shape[1], cfg.h_out, enc_mem.device
+    if h != HIDDEN or cfg.hidden != HIDDEN:
+        raise ValueError(f"the kernel takes hidden = {HIDDEN}, got {h}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"the kernel takes 1..{MAX_D} coordinates, got {d}")
+    layers = params["dec"]
+    if not 1 <= len(layers) <= MAX_LAYERS:
+        raise ValueError(f"the kernel takes 1..{MAX_LAYERS} layers, got {len(layers)}")
+    kt = 0
+    if peer_mem is not None:
+        kt = peer_mem.shape[1]
+        if peer_mem.shape != (batch, kt, h) or tuple(peer_valid.shape) != (batch, kt) or kt < 1:
+            raise ValueError(f"expected peer_mem ({batch}, KT, {h}) and peer_valid ({batch}, KT), got "
+                             f"{tuple(peer_mem.shape)} and {tuple(peer_valid.shape)}")
+        if peer_valid.dtype != torch.bool or peer_valid.device != dev or not peer_valid.is_contiguous():
+            raise ValueError("peer_valid must be a contiguous bool tensor on the card")
+    if (tuple(params["in_proj"].shape) != (d, h) or tuple(params["out_proj"]["w"].shape) != (h, d)
+            or tuple(params["out_proj"]["b"].shape) != (d,)):
+        raise ValueError(f"in_proj must be ({d}, {h}), out_proj ({h}, {d}) and ({d},)")
+    weights, _ = layer_pointers(layers, _DEC_WEIGHTS, h)
+    glob = [params["in_proj"], params["out_proj"]["w"], params["out_proj"]["b"],
+            params["final_ln"]["scale"], params["final_ln"]["bias"]]
+    check_card_tensors([enc_mem, y0, *glob] + ([peer_mem] if kt else []), dev, "fused_ar_decode",
+                       vectors=weights)
+    # the static cross and peer K/V, projected once for the rollout
+    tensors = []
+    for layer in layers:
+        ca, pa = layer["cross_attn"], layer["peer_attn"]
+        peer_kv = (peer_mem @ pa["wk"], peer_mem @ pa["wv"]) if kt else (None, None)
+        tensors += _layer_tensors(layer, enc_mem @ ca["wk"], enc_mem @ ca["wv"], *peer_kv)
+    ptrs = (ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr() for t in tensors])
+    pos = transformer._pos_enc(t_out, h, device=dev)
+    self_kv = torch.empty((2, len(layers), batch, t_out, h), device=dev, dtype=torch.float32)
+    out = torch.empty((batch, t_out, d), device=dev, dtype=torch.float32)
+    seg = kt if cfg.peer_pool == "mean" else t_out
+    with torch.cuda.device(dev):
+        err = _library().transformer_decode_f32(
+            y0.data_ptr(), peer_valid.data_ptr() if kt else None, self_kv.data_ptr(), out.data_ptr(),
+            ptrs, *[t.data_ptr() for t in glob], pos.data_ptr(),
+            batch, len(layers), t_in, t_out, d, kt, cfg.peer_window, seg,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"transformer_decode kernel launch failed: "
+            f"{_library().transformer_decode_error_string(err).decode()} (cuda error {err})"
+        )
+    fused_ar_decode.launches += 1
+    return out
+
+
+fused_ar_decode.launches = 0
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built at first use and loaded once."""
+    lib = _build.load("transformer_decode")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.transformer_decode_f32.argtypes = [vp] * 4 + [ctypes.POINTER(vp)] + [vp] * 6 + [i32] * 8 + [vp]
+    lib.transformer_decode_f32.restype = i32
+    lib.transformer_decode_error_string.argtypes = [i32]
+    lib.transformer_decode_error_string.restype = ctypes.c_char_p
+    return lib

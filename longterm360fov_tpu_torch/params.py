@@ -1,5 +1,5 @@
-"""Carry a seq2seq, cross_user or fusion parameter tree from numpy into the
-port's tensors, and walk a tree in ``jax.tree_util``'s order.
+"""Carry a seq2seq, cross_user, fusion or transformer parameter tree from
+numpy into the port's tensors, and walk a tree in ``jax.tree_util``'s order.
 
 ``jax.random`` and ``torch.Generator`` give different numbers from the same
 seed, so the port and the JAX package share weights, not seeds: the JAX
@@ -16,7 +16,7 @@ import torch
 
 from .models.cell import LSTMParams
 
-__all__ = ["params_from_numpy", "walk", "tree_leaves", "tree_unflatten"]
+__all__ = ["params_from_numpy", "walk", "tree_leaves", "tree_unflatten", "params_device"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -31,6 +31,13 @@ _EXTRA = {
     "feat_proj": {"w1", "b1", "w2", "b2"},  # fusion
 }
 _FAMILIES = (_SEQ2SEQ, _SEQ2SEQ | {"peer_encoder"}, _SEQ2SEQ | {"conv", "feat_proj"})
+# the transformer tree: its layers are dicts of these subtrees, each a dict of
+# leaves
+_LN, _ATTN, _MLP = {"scale", "bias"}, {"wq", "wk", "wv", "wo"}, {"w1", "b1", "w2", "b2"}
+_TRANSFORMER = {"in_proj", "out_proj", "final_ln", "enc", "dec"}
+_ENC_LAYER = {"ln1": _LN, "attn": _ATTN, "ln2": _LN, "mlp": _MLP}
+_DEC_LAYER = {"ln1": _LN, "self_attn": _ATTN, "ln2": _LN, "cross_attn": _ATTN, "ln3": _LN,
+              "peer_attn": _ATTN, "ln4": _LN, "mlp": _MLP}
 
 
 def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
@@ -39,23 +46,40 @@ def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
     family ``"conv": {"kernels", "bias", "head_w", "head_b"}`` and
     ``"feat_proj": {"w1", "b1", "w2", "b2"}``, of numpy arrays (each layer
     any ``(w, b)`` pair, such as the JAX ``LSTMParams``) → the same
-    structure of tensors on ``device``, with the port's ``LSTMParams``.
+    structure of tensors on ``device``, with the port's ``LSTMParams``. The
+    transformer tree (``in_proj``, ``out_proj`` {w, b}, ``final_ln`` {scale,
+    bias}, and ``enc``/``dec`` lists of layer dicts) carries over as it is.
     Dtypes are kept."""
-    if set(tree) not in _FAMILIES:
-        raise KeyError(
-            f"expected a seq2seq params tree with keys encoder, decoder, proj "
-            f"(and peer_encoder for cross_user, conv and feat_proj for fusion); "
-            f"got {sorted(tree)}"
-        )
-
-    def layer(wb):
-        w, b = wb
-        return LSTMParams(w=_tensor(w, device), b=_tensor(b, device))
 
     def leaves(d, keys):
         if set(d) != keys:
             raise KeyError(f"expected keys {sorted(keys)}, got {sorted(d)}")
         return {k: _tensor(d[k], device) for k in keys}
+
+    if set(tree) == _TRANSFORMER:
+        def layers(seq, spec):
+            for lay in seq:
+                if set(lay) != set(spec):
+                    raise KeyError(f"expected layer keys {sorted(spec)}, got {sorted(lay)}")
+            return [{name: leaves(lay[name], keys) for name, keys in spec.items()} for lay in seq]
+
+        return {
+            "in_proj": _tensor(tree["in_proj"], device),
+            "out_proj": leaves(tree["out_proj"], {"w", "b"}),
+            "final_ln": leaves(tree["final_ln"], _LN),
+            "enc": layers(tree["enc"], _ENC_LAYER),
+            "dec": layers(tree["dec"], _DEC_LAYER),
+        }
+    if set(tree) not in _FAMILIES:
+        raise KeyError(
+            f"expected a seq2seq params tree with keys encoder, decoder, proj "
+            f"(and peer_encoder for cross_user, conv and feat_proj for fusion), or "
+            f"a transformer tree with keys {sorted(_TRANSFORMER)}; got {sorted(tree)}"
+        )
+
+    def layer(wb):
+        w, b = wb
+        return LSTMParams(w=_tensor(w, device), b=_tensor(b, device))
 
     out = {
         "encoder": [layer(p) for p in tree["encoder"]],
@@ -87,8 +111,9 @@ def tree_leaves(params: Dict[str, Any]) -> list:
     seq2seq the decoder layers (w, b), the encoder layers (w, b), proj b and
     w; cross_user adds the peer encoder (w, b) before proj; fusion adds
     conv (bias, head_b, head_w, kernels) first and feat_proj (b1, b2, w1,
-    w2) before proj. The optimizer state, the checkpoint and
-    ``serving.flat_param_items`` rely on this order."""
+    w2) before proj; the transformer's are dec, enc, final_ln, in_proj,
+    out_proj, each layer's subtrees by sorted name. The optimizer state, the
+    checkpoint and ``serving.flat_param_items`` rely on this order."""
     out = []
     walk(params, lambda _, leaf: out.append(leaf))
     return out
@@ -98,3 +123,8 @@ def tree_unflatten(like: Dict[str, Any], leaves) -> Dict[str, Any]:
     """Inverse of :func:`tree_leaves`, with the structure of ``like``."""
     it = iter(leaves)
     return walk(like, lambda _, __: next(it))
+
+
+def params_device(params: Dict[str, Any]) -> torch.device:
+    """The device of a params tree: that of its first leaf."""
+    return tree_leaves(params)[0].device

@@ -17,8 +17,8 @@ PyTorch twin of the serve-path subset of ``longterm360fov_tpu.serving``:
   sliced off before results are returned, so co-batching never changes any
   viewer's answer.
 - :func:`load_exported_params` — loads the flat dotted-key ``export`` npz
-  of the JAX package into the port's params (seq2seq, cross_user and
-  fusion trees).
+  of the JAX package into the port's params (seq2seq, cross_user, fusion
+  and transformer trees).
 - the grouped gateway: :func:`group_pack`, :func:`make_grouped_serve_fn`
   (its generic tier: each video's peer set rides to the device once and a
   per-row ``gfut[gid]`` gather there feeds the family's serve path) and
@@ -26,8 +26,8 @@ PyTorch twin of the serve-path subset of ``longterm360fov_tpu.serving``:
 
 Not ported yet (ROADMAP.md): the TCP daemon, per-viewer pose windows,
 hot-reload ops (slice 'the TCP daemon and CLI'), the grouped gateway's
-transformer tier (slice 'transformer'), and the batcher's mesh bucket
-divisor (slice 'parallelism').
+transformer tier, the shared-KV decode (slice H), and the batcher's mesh
+bucket divisor (slice 'parallelism').
 """
 
 from __future__ import annotations
@@ -655,7 +655,7 @@ def make_grouped_serve_fn(
     ``serve_fused`` for ``impl="fused"`` (the lockstep-peer kernels under
     ``peer_align``), ``apply`` for ``"plain"``. Same math as per-row
     serving; no tile purity needed (``fn.tile_b = 1``). The transformer's
-    shared-KV tier raises: that family is not ported."""
+    shared-KV tier raises: it is not ported yet (ROADMAP.md, slice H)."""
     from .train import default_extras
 
     device = torch.device(device)
@@ -664,7 +664,7 @@ def make_grouped_serve_fn(
     if cfg.model_family == "transformer":
         raise NotImplementedError(
             "make_grouped_serve_fn: the transformer family's shared-KV tier is not ported yet "
-            "(ROADMAP.md, slice 'transformer')"
+            "(ROADMAP.md, slice H)"
         )
     extras_fn = getattr(fam, "batch_extras", None) or default_extras
     # behaviour probe, not cfg.n_other_users (K is a serving-time knob): a

@@ -14,10 +14,13 @@ family's ``apply_fused_tf``) or, with ``scheduled_sampling``,
 tensors are: CUDA kernels on the card, their plain versions on the CPU.
 Nothing is routed on ``torch.cuda.is_available()``.
 
-Scheduled sampling draws the coins of step i on the params' device from a
-generator seeded from ``(cfg.seed, i)`` (:func:`step_generator`), as
-:func:`batch_iterator` seeds its epochs, so a resumed run draws the same
-coins with no saved generator state.
+Scheduled sampling draws the coins of step i (the transformer family: its
+noisy-teacher-forcing noise) on the params' device from a generator seeded
+from ``(cfg.seed, i)`` (:func:`step_generator`), as :func:`batch_iterator`
+seeds its epochs, so a resumed run draws the same coins with no saved
+generator state. The transformer has no fused training hook, as in JAX: its
+step is autograd through ``apply``'s parallel pass under every
+``train_impl``.
 
 Not ported yet, and raising: ``data_parallel`` (ROADMAP.md, slice
 'parallelism').
@@ -36,7 +39,7 @@ import torch
 
 from . import losses, windows
 from .config import ExperimentConfig
-from .params import tree_leaves, tree_unflatten
+from .params import params_device, tree_leaves, tree_unflatten
 
 __all__ = [
     "TrainState",
@@ -150,8 +153,9 @@ def default_extras(batch: Dict, anchor) -> Dict:
 
 
 def step_generator(cfg: ExperimentConfig, step: int, device) -> torch.Generator:
-    """The generator that draws step ``step``'s scheduled-sampling coins, on
-    ``device``, seeded from ``(cfg.seed, step)``."""
+    """The generator that draws step ``step``'s scheduled-sampling coins (or
+    noisy-teacher-forcing noise), on ``device``, seeded from
+    ``(cfg.seed, step)``."""
     seed = int(np.random.default_rng([cfg.seed, step]).integers(2**63))
     return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
@@ -228,7 +232,7 @@ def make_grad_fn(
         return (loss.detach(), gc_deg), list(grads)
 
     def grad_fn(params, batch, gen=None, teacher_prob=1.0):
-        device = params["proj"]["w"].device
+        device = params_device(params)
         batch = {
             k: torch.as_tensor(v, device=device) for k, v in batch.items() if v is not None
         }
@@ -275,7 +279,7 @@ def make_train_step(
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         tp = teacher_prob_at(cfg, state.step)
-        gen = (step_generator(cfg, state.step, state.params["proj"]["w"].device)
+        gen = (step_generator(cfg, state.step, params_device(state.params))
                if cfg.scheduled_sampling else None)
         (loss, gc_deg), grads = grad_fn(state.params, batch, gen, tp)
         updates, opt_state = optimizer.update(grads, state.opt_state)

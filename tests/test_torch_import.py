@@ -23,13 +23,14 @@ print(len(names), loaded, ",".join(names))
 """
 
 # the training slice's modules, beside the serving slice's, the cross_user
-# and scheduled-sampling slice's, the lockstep-peer slice's and the fusion
-# slice's
+# and scheduled-sampling slice's, the lockstep-peer slice's, the fusion
+# slice's and the transformer slice's
 _TRAIN_SLICE = ("baselines", "checkpoint", "data", "evaluate", "losses",
                 "ops.lstm_train", "traces", "train")
 _CROSS_USER_SLICE = ("models.cross_user", "ops.lstm_ss")
 _PEER_ALIGN_SLICE = ("ops.lstm_align",)
 _FUSION_SLICE = ("ops.conv_resize", "features", "features.equirect", "models.fusion")
+_TRANSFORMER_SLICE = ("models.transformer", "ops.transformer_encode", "ops.transformer_decode")
 
 
 def test_port_imports_without_jax():
@@ -43,5 +44,5 @@ def test_port_imports_without_jax():
     assert int(count) >= 23, proc.stdout  # every module of the package
     assert loaded.strip() == "[]"
     names = names.strip().split(",")
-    for mod in _TRAIN_SLICE + _CROSS_USER_SLICE + _PEER_ALIGN_SLICE + _FUSION_SLICE:
+    for mod in _TRAIN_SLICE + _CROSS_USER_SLICE + _PEER_ALIGN_SLICE + _FUSION_SLICE + _TRANSFORMER_SLICE:
         assert f"longterm360fov_tpu_torch.{mod}" in names

@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from longterm360fov_tpu_torch import oracle
-from longterm360fov_tpu_torch.models import seq2seq
+from longterm360fov_tpu_torch.models import seq2seq, transformer
 from longterm360fov_tpu_torch.models.cell import LSTMParams
-from longterm360fov_tpu_torch.ops import conv_resize, fused_lstm, lstm_align, lstm_ss, lstm_train
-from longterm360fov_tpu_torch.params import params_from_numpy
+from longterm360fov_tpu_torch.ops import (conv_resize, fused_lstm, lstm_align, lstm_ss, lstm_train,
+                                          transformer_decode, transformer_encode)
+from longterm360fov_tpu_torch.params import params_from_numpy, walk
 
 # the condition string is evaluated when the test runs, not at import
 pytestmark = [
@@ -594,3 +595,90 @@ def test_conv_resize_never_falls_back_on_card():
         conv_resize.fused_conv_resize(frames, (16, 20000), kernels, bias)
     with pytest.raises(ValueError, match="contiguous"):
         conv_resize.fused_conv_resize(frames.transpose(1, 2), (16, 32), kernels, bias)
+
+
+# ------------------------------------------------- transformer kernels
+# Both kernels against their plain versions (models.transformer._encode and
+# _ar_decode) within 3e-5 absolute, the JAX suite's bound for its kernels
+# (tests/test_transformer_encode.py, tests/test_transformer_decode.py): f32
+# FMAs in another order and an online softmax.
+
+
+def _tfm_case(layers, h_in, h_out, batch, k=0, pool="none", window=0, seed=0):
+    """transformer params with random LN scales and biases (init gives 1 and
+    0), pasts, the plain encoder memory and, with k peers, their tokens
+    under a mask with a row of no peer and a row of one."""
+    cfg = seq2seq.Seq2SeqConfig(hidden=128, layers=layers, h_in=h_in, h_out=h_out, peer_pool=pool,
+                                peer_window=window)
+    params = transformer.init(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    rng = np.random.default_rng(seed)
+    for leaf in [v for lay in params["enc"] + params["dec"] for sub in lay.values()
+                 for key, v in sub.items() if key in ("scale", "bias", "b1", "b2")]:
+        leaf += torch.tensor(rng.normal(size=leaf.shape).astype(np.float32) * 0.1)
+    params = params_from_numpy(walk(params, lambda _, t: t.numpy()), "cuda")
+    past = torch.tensor(rng.normal(size=(batch, h_in, 3)).astype(np.float32) * 0.3, device="cuda")
+    enc = transformer._encode(params, cfg, past)
+    pm = pv = None
+    if k:
+        of = torch.tensor(rng.normal(size=(batch, k, h_out, 3)).astype(np.float32) * 0.3, device="cuda")
+        mask = (torch.tensor(rng.random((batch, k))) < 0.7).float().cuda()
+        mask[0] = 0.0
+        mask[min(1, batch - 1), 1:] = 0.0
+        pm, pv = (x.contiguous() for x in transformer._peer_tokens(params, cfg, of, mask))
+    return cfg, params, past, enc, past[:, -1].contiguous(), pm, pv
+
+
+@pytest.mark.parametrize("layers,t,batch", [(2, 30, 257), (1, 6, 8), (3, 64, 5), (2, 7, 1), (2, 30, 16387)])
+def test_transformer_encode_kernel_matches_plain(layers, t, batch):
+    cfg, params, past, enc, *_ = _tfm_case(layers, t, 4, batch, seed=layers)
+    before = transformer_encode.fused_encode_tokens.launches
+    out = transformer_encode.fused_encode_tokens(params, cfg, past)
+    torch.cuda.synchronize()
+    assert transformer_encode.fused_encode_tokens.launches == before + 1
+    assert out.shape == enc.shape and torch.isfinite(out).all()
+    assert (out - enc).abs().max().item() <= 3e-5
+
+
+@pytest.mark.parametrize("k,pool,window", [(0, "none", 0), (4, "none", 0), (3, "mean", 0), (4, "none", 2),
+                                           (3, "mean", 3)])
+@pytest.mark.parametrize("layers,h_in,h_out,batch", [(2, 30, 30, 257), (1, 4, 3, 8), (2, 6, 7, 1)])
+def test_transformer_decode_kernel_matches_plain(layers, h_in, h_out, batch, k, pool, window):
+    cfg, params, _, enc, y0, pm, pv = _tfm_case(layers, h_in, h_out, batch, k, pool, window, seed=k + layers)
+    before = transformer_decode.fused_ar_decode.launches
+    out = transformer_decode.fused_ar_decode(params, cfg, enc, y0, peer_mem=pm, peer_valid=pv)
+    torch.cuda.synchronize()
+    assert transformer_decode.fused_ar_decode.launches == before + 1
+    ref = transformer._ar_decode(params, cfg, enc, pm, pv, y0)
+    assert out.shape == (batch, h_out, 3) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 3e-5
+    if k:  # the row with no valid peer is the peerless rollout
+        alone = transformer_decode.fused_ar_decode(params, cfg, enc, y0)
+        assert (out[0] - alone[0]).abs().max().item() <= 3e-5
+
+
+def test_transformer_kernels_rows_are_independent():
+    cfg, params, past, enc, y0, pm, pv = _tfm_case(2, 30, 30, 200, k=4)
+    full = transformer_encode.fused_encode_tokens(params, cfg, past)
+    assert torch.equal(full[70:131], transformer_encode.fused_encode_tokens(params, cfg, past[70:131].contiguous()))
+    full = transformer_decode.fused_ar_decode(params, cfg, enc, y0, peer_mem=pm, peer_valid=pv)
+    part = transformer_decode.fused_ar_decode(params, cfg, enc[70:131].contiguous(), y0[70:131].contiguous(),
+                                              peer_mem=pm[70:131].contiguous(), peer_valid=pv[70:131].contiguous())
+    assert torch.equal(full[70:131], part)
+
+
+def test_transformer_kernels_never_fall_back_on_card():
+    cfg, params, past, enc, y0, pm, pv = _tfm_case(1, 6, 5, 4, k=2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        transformer_encode.fused_encode_tokens(params, cfg, past.clone().requires_grad_(True))
+    with pytest.raises(RuntimeError, match="no backward"):
+        transformer_decode.fused_ar_decode(params, cfg, enc.clone().requires_grad_(True), y0)
+    with pytest.raises(ValueError, match="contiguous"):
+        transformer_encode.fused_encode_tokens(params, cfg, past.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        transformer_decode.fused_ar_decode(params, cfg, enc, past[:, 0])
+    with pytest.raises(ValueError, match="T <= 64"):
+        transformer_encode.fused_encode_tokens(params, cfg, torch.zeros(2, 65, 3, device="cuda"))
+    with pytest.raises(NotImplementedError, match="slice I"):
+        transformer_decode.fused_ar_decode(params, cfg, enc, y0, compute_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        transformer_decode.fused_ar_decode(params, cfg, enc.double(), y0)

@@ -138,12 +138,11 @@ def test_init_layout_and_device():
 
 
 def test_get_family():
-    from longterm360fov_tpu_torch.models import cross_user, fusion
+    from longterm360fov_tpu_torch.models import cross_user, fusion, transformer
 
     assert get_family("seq2seq") is seq2seq
     assert get_family("cross_user") is cross_user
     assert get_family("fusion") is fusion
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_family("transformer")
+    assert get_family("transformer") is transformer
     with pytest.raises(KeyError):
         get_family("nope")

@@ -28,9 +28,10 @@ from longterm360fov_tpu import traces as jax_traces
 from longterm360fov_tpu import train as jax_train
 from longterm360fov_tpu.config import ExperimentConfig as JaxExperimentConfig
 from longterm360fov_tpu.models import seq2seq as jax_seq2seq
+from longterm360fov_tpu.models import transformer as jax_transformer
 from longterm360fov_tpu_torch import baselines, checkpoint, cli, data, evaluate, losses, traces, train
 from longterm360fov_tpu_torch.config import ExperimentConfig, get_preset
-from longterm360fov_tpu_torch.models import seq2seq
+from longterm360fov_tpu_torch.models import seq2seq, transformer
 from longterm360fov_tpu_torch.params import params_from_numpy, tree_leaves
 
 
@@ -123,34 +124,71 @@ def test_optimizer_updates_match_optax(scale):
 # ---------------------------------------------------------------- trajectory
 
 
-@pytest.mark.parametrize("case", ["fused", "fused-accum2", "fused-fast", "xla-gc-warmup"])
-def test_train_trajectory_matches_jax(case):
+def _transformer_cfgs(**kw):
+    """A cut transformer-30: 2 layers at hidden 32, noisy teacher forcing
+    annealed 1 → 0.3, gc_weight 0.3, a warmup-cosine schedule."""
+    model = dict(hidden=32, layers=2, **kw.pop("model", {}))
+    return _cfgs(model=model, model_family="transformer", scheduled_sampling=True, ss_end=0.3,
+                 gc_weight=0.3, warmup_steps=2, **kw)
+
+
+def _with_peers(d, seed, k=3):
+    """K peer futures (unit vectors around +x) and a mask with gaps."""
+    rng = np.random.default_rng(seed)
+    n, h_out = d["future"].shape[:2]
+    of = _windows(n * k, seed + 100, h_in=1, h_out=h_out)["future"].reshape(n, k, h_out, 3)
+    mask = (rng.random((n, k)) < 0.7).astype(np.float32)
+    mask[0] = 0.0
+    return dict(d, other_future=of, other_mask=mask)
+
+
+def _patch_noise(monkeypatch, shape):
+    """The same N(0, 1) array as noisy teacher forcing's noise on both sides:
+    jax.random and torch.Generator give different numbers from one seed."""
+    noise = np.random.default_rng(11).normal(size=shape).astype(np.float32)
+    monkeypatch.setattr(jax.random, "normal", lambda key, shp, dtype=jnp.float32: jnp.asarray(noise))
+    monkeypatch.setattr(transformer, "draw_noise", lambda gen, shp: torch.from_numpy(noise))
+
+
+@pytest.mark.parametrize("case", ["fused", "fused-accum2", "fused-fast", "xla-gc-warmup", "transformer"])
+def test_train_trajectory_matches_jax(case, monkeypatch):
     """N steps of the port's train step against the JAX make_train_step from
     the same params on the same batch_iterator batches: the fused path with
     f32 residuals on both sides (JAX kernels in interpret mode), with
     accum=2, as the gc_metric=False fast step, and the plain ("xla") path
-    with the great-circle loss and a warmup-cosine schedule. Per-step loss
-    within 1e-5 relative and final params within 2e-6 absolute: f32 sums in
-    another order, through 5 Adam updates of lr 3e-3."""
+    with the great-circle loss and a warmup-cosine schedule; and a cut
+    transformer-30 with peers (autograd through the parallel pass on both
+    sides, as the family has no fused hook) with the same noisy-teacher-
+    forcing noise. Per-step loss within 1e-5 relative and final params
+    within 2e-6 absolute: f32 sums in another order, through 5 Adam updates
+    of lr 3e-3."""
     kw = {
         "fused": dict(train_impl="fused"),
         "fused-accum2": dict(train_impl="fused", accum=2),
         "fused-fast": dict(train_impl="fused"),
         "xla-gc-warmup": dict(train_impl="xla", gc_weight=0.3, warmup_steps=2),
-    }[case]
+    }.get(case)
     gc_metric = case != "fused-fast"
-    jcfg, tcfg = _cfgs(**kw)
     data_np = _windows(64, seed=3)
+    if case == "transformer":
+        jcfg, tcfg = _transformer_cfgs()
+        data_np = _with_peers(data_np, seed=3)
+        _patch_noise(monkeypatch, (tcfg.batch_size, tcfg.model.h_out, 3))
+        jfam, tfam = jax_transformer, transformer
+        fns_j = fns_t = {}
+    else:
+        jcfg, tcfg = _cfgs(**kw)
+        jfam, tfam = jax_seq2seq, seq2seq
+        fns_j = dict(fused_tf_fn=partial(jax_seq2seq.apply_fused_tf, residual_dtype=jnp.float32))
+        fns_t = dict(fused_tf_fn=partial(seq2seq.apply_fused_tf, residual_dtype=torch.float32))
     jopt, topt = jax_train.make_optimizer(jcfg), train.make_optimizer(tcfg)
-    jstate = jax_train.init_state(jcfg, jax_seq2seq.init, jopt)
+    jstate = jax_train.init_state(jcfg, jfam.init, jopt)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jstate.params), "cpu")
     tstate = train.TrainState(tparams, topt.init(tparams), 0, torch.Generator())
-    jstep = jax_train.make_train_step(
-        jcfg, jax_seq2seq.apply, jopt, gc_metric=gc_metric,
-        fused_tf_fn=partial(jax_seq2seq.apply_fused_tf, residual_dtype=jnp.float32))
-    tstep = train.make_train_step(
-        tcfg, seq2seq.apply, topt, gc_metric=gc_metric,
-        fused_tf_fn=partial(seq2seq.apply_fused_tf, residual_dtype=torch.float32))
+    jstep = jax_train.make_train_step(jcfg, jfam.apply, jopt, gc_metric=gc_metric,
+                                      extras_fn=getattr(jfam, "batch_extras", None), **fns_j)
+    tstep = train.make_train_step(tcfg, tfam.apply, topt, gc_metric=gc_metric,
+                                  extras_fn=getattr(tfam, "batch_extras", None), **fns_t)
     it = jax_train.batch_iterator(data_np, tcfg.batch_size, tcfg.seed)
     for _ in range(tcfg.steps):
         batch = next(it)
@@ -257,30 +295,39 @@ def test_checkpoint_roundtrip(tmp_path):
         assert json.load(f) == {"name": tcfg.name, "hash": tcfg.hash(), "model_hash": tcfg.model_hash()}
 
 
-@pytest.mark.parametrize("train_impl", ["fused", "xla"])
+@pytest.mark.parametrize("train_impl", ["fused", "xla", "transformer"])
 def test_resume_is_deterministic(tmp_path, train_impl):
     """N steps straight == k steps, checkpoint, restore, N - k steps; the
-    checkpoint and the log come from train_loop itself."""
-    _, tcfg = _cfgs(steps=6, eval_every=3, ckpt_every=3, train_impl=train_impl)
+    checkpoint and the log come from train_loop itself. The transformer case
+    draws its noisy-teacher-forcing noise from (seed, step), so a resumed run
+    draws the same noise."""
     d, ev = _windows(48, seed=2), _windows(10, seed=9)
-    fused = seq2seq.apply_fused_tf
-    full, hist = train.train_loop(tcfg, seq2seq.init, seq2seq.apply, d, device="cpu",
-                                  eval_data=ev, fused_tf_fn=fused)
+    if train_impl == "transformer":
+        _, tcfg = _transformer_cfgs(steps=6, eval_every=3, ckpt_every=3)
+        d, ev = _with_peers(d, seed=2), _with_peers(ev, seed=9)
+        fam, run = transformer, dict(extras_fn=transformer.batch_extras)
+    else:
+        _, tcfg = _cfgs(steps=6, eval_every=3, ckpt_every=3, train_impl=train_impl)
+        fam, run = seq2seq, dict(fused_tf_fn=seq2seq.apply_fused_tf)
+    full, hist = train.train_loop(tcfg, fam.init, fam.apply, d, device="cpu", eval_data=ev, **run)
     ck_dir, log = str(tmp_path / "ck"), str(tmp_path / "log.jsonl")
-    train.train_loop(tcfg.replace(steps=3), seq2seq.init, seq2seq.apply, d, device="cpu",
-                     eval_data=ev, checkpoint_dir=ck_dir, log_file=log, fused_tf_fn=fused)
+    # the noise anneal and the lr schedule follow cfg.steps: the transformer
+    # case takes its step-3 checkpoint from a run of all 6 steps
+    saved = [3, 6] if train_impl == "transformer" else [3]
+    train.train_loop(tcfg.replace(steps=saved[-1]), fam.init, fam.apply, d, device="cpu",
+                     eval_data=ev, checkpoint_dir=ck_dir, log_file=log, **run)
     ck = checkpoint.Checkpointer(ck_dir, tcfg)
-    assert ck.all_steps() == [3]
+    assert ck.all_steps() == saved
     opt = train.make_optimizer(tcfg)
-    restored = ck.restore(train.init_state(tcfg, seq2seq.init, opt, device="cpu"))
-    resumed, hist2 = train.train_loop(tcfg, seq2seq.init, seq2seq.apply, d, device="cpu",
-                                      eval_data=ev, state=restored, fused_tf_fn=fused)
+    restored = ck.restore(train.init_state(tcfg, fam.init, opt, device="cpu"), step=3)
+    resumed, hist2 = train.train_loop(tcfg, fam.init, fam.apply, d, device="cpu",
+                                      eval_data=ev, state=restored, **run)
     for a, b in zip(tree_leaves(full.params), tree_leaves(resumed.params)):
         assert torch.equal(a, b)
     assert hist[-1]["loss"] == hist2[-1]["loss"] and hist2[-1]["step"] == 6
     with open(log) as f:
         logged = [json.loads(line) for line in f]
-    assert [m["step"] for m in logged] == [3] and "eval_great_circle_deg" in logged[0]
+    assert [m["step"] for m in logged] == saved and "eval_great_circle_deg" in logged[0]
     assert logged[0]["loss"] == hist[0]["loss"]
 
 
@@ -322,13 +369,20 @@ def test_check_model_config_as_jax(tmp_path):
 # ---------------------------------------------------------------- evaluation
 
 
-@pytest.mark.parametrize("impl", ["fused", "plain"])
+@pytest.mark.parametrize("impl", ["fused", "plain", "transformer-fused", "transformer-plain"])
 def test_evaluate_matches_jax(impl):
-    jcfg, tcfg = _cfgs(model=dict(h_in=6, h_out=4))
-    jparams = jax_seq2seq.init(jax.random.PRNGKey(4), jcfg.model)
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     d = _windows(37, seed=6, h_in=6, h_out=4)
-    ref = jax_evaluate.evaluate(jparams, jcfg, jax_seq2seq.apply, d, batch_size=16)
+    if impl.startswith("transformer"):
+        jcfg, tcfg = _transformer_cfgs(model=dict(h_in=6, h_out=4))
+        jfam, impl = jax_transformer, impl.split("-")[1]
+        d = _with_peers(d, seed=6)
+    else:
+        jcfg, tcfg = _cfgs(model=dict(h_in=6, h_out=4))
+        jfam = jax_seq2seq
+    jparams = jfam.init(jax.random.PRNGKey(4), jcfg.model)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    ref = jax_evaluate.evaluate(jparams, jcfg, jfam.apply, d, batch_size=16,
+                                extras_fn=getattr(jfam, "batch_extras", None))
     ours = evaluate.evaluate(tparams, tcfg, d, impl=impl, batch_size=16)
     assert ours["n_windows"] == ref["n_windows"] == 37
     np.testing.assert_allclose(ours["error_by_step_deg"], ref["error_by_step_deg"], rtol=1e-4)

@@ -1,0 +1,92 @@
+"""The transformer encoder of the port against the JAX package, on the CPU:
+the plain version behind ``ops.transformer_encode.fused_encode_tokens``
+against the JAX kernel (interpret mode) and the JAX ``_encode``; what the
+wrapper refuses; and the library yardstick ``chip_smoke.py`` times beside
+the kernel, which must compute the same function.
+
+The CUDA kernel itself is held against this plain version on the card
+(tests/test_torch_kernel_cuda.py, chip_smoke.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from longterm360fov_tpu.models import transformer as TR
+from longterm360fov_tpu.models.seq2seq import Seq2SeqConfig as JaxConfig
+from longterm360fov_tpu.ops.transformer_encode import fused_encode_tokens as jax_fused_encode_tokens
+from longterm360fov_tpu_torch.models import transformer
+from longterm360fov_tpu_torch.models.seq2seq import Seq2SeqConfig
+from longterm360fov_tpu_torch.ops import transformer_encode
+from longterm360fov_tpu_torch.params import params_from_numpy
+
+TOL = 3e-5  # tests/test_transformer_encode.py
+
+
+def _setup(layers=2, h_in=6, b=8, seed=0, perturb=False):
+    kw = dict(d=3, hidden=128, layers=layers, h_in=h_in, h_out=4)
+    jcfg, tcfg = JaxConfig(**kw), Seq2SeqConfig(**kw)
+    jp = TR.init(jax.random.PRNGKey(seed), jcfg)
+    rng = np.random.default_rng(seed)
+    if perturb:  # LN scales and every bias away from init's 1 and 0
+        jp = jax.tree_util.tree_map_with_path(
+            lambda path, x: x + rng.normal(size=x.shape).astype(np.float32) * 0.1
+            if str(path[-1].key) in ("scale", "bias", "b1", "b2") else x, jp)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    past = rng.normal(size=(b, h_in, 3)).astype(np.float32) * 0.1
+    return jcfg, tcfg, jp, tp, past
+
+
+@pytest.mark.parametrize("layers,h_in,b", [(1, 4, 8), (2, 6, 8), (2, 10, 16)])
+def test_plain_encoder_matches_the_jax_kernel_and_encode(layers, h_in, b):
+    jcfg, tcfg, jp, tp, past = _setup(layers, h_in, b, seed=layers, perturb=True)
+    got = transformer_encode.fused_encode_tokens(tp, tcfg, torch.from_numpy(past))
+    kernel = jax_fused_encode_tokens(jp, jcfg, jnp.asarray(past), compute_dtype=jnp.float32)
+    plain = TR._encode(jp, jcfg, jnp.asarray(past))
+    assert got.shape == (b, h_in, 128) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(kernel), rtol=0, atol=TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(plain), rtol=0, atol=TOL)
+
+
+def test_viewers_are_independent():
+    """A viewer's memory does not depend on the others in its call (the
+    kernel packs 64 // T viewers into a block)."""
+    _, tcfg, _, tp, past = _setup(h_in=30, b=11, seed=3)
+    x = torch.from_numpy(past)
+    full = transformer_encode.fused_encode_tokens(tp, tcfg, x)
+    part = transformer_encode.fused_encode_tokens(tp, tcfg, x[3:8])
+    np.testing.assert_allclose(full[3:8].numpy(), part.numpy(), rtol=0, atol=1e-6)
+
+
+def test_routing_threshold_and_refusals():
+    assert transformer_encode.encode_kernel_fits(64) and not transformer_encode.encode_kernel_fits(65)
+    _, tcfg, _, tp, past = _setup(layers=1)
+    x = torch.from_numpy(past)
+    with pytest.raises(RuntimeError, match="no backward"):
+        transformer_encode.fused_encode_tokens(tp, tcfg, x.clone().requires_grad_(True))
+    leaf = tp["enc"][0]["attn"]["wq"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        transformer_encode.fused_encode_tokens(tp, tcfg, x)
+    leaf.requires_grad_(False)
+    with torch.no_grad():  # no grad, no refusal
+        transformer_encode.fused_encode_tokens(tp, tcfg, x)
+    with pytest.raises(NotImplementedError, match="slice I"):
+        transformer_encode.fused_encode_tokens(tp, tcfg, x, compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="non-empty"):
+        transformer_encode.fused_encode_tokens(tp, tcfg, x[:, :, 0])
+
+
+@pytest.mark.parametrize("perturb", [False, True])
+def test_library_yardstick_equals_encode(perturb):
+    """chip_smoke.encoder_library (nn.TransformerEncoder with the same
+    weights, pre-LN, eps 1e-6, tanh GELU) computes _encode's layers."""
+    _, tcfg, _, tp, past = _setup(layers=2, h_in=30, b=5, seed=4, perturb=perturb)
+    x = torch.from_numpy(past)
+    net = chip_smoke.encoder_library(tp, "cpu")
+    emb = x @ tp["in_proj"] + transformer._pos_enc(30, 128)
+    with torch.no_grad():
+        got = net(emb)
+    np.testing.assert_allclose(got.numpy(), transformer._encode(tp, tcfg, x).numpy(), rtol=0, atol=1e-5)
