@@ -25,7 +25,17 @@ one line each or more:
    T = 30, a ragged B, T = 13 and 64) and ``fused_ar_decode`` (30 + 30 steps,
    L = 2: no peers, K = 4 per-row peers with a row of no valid peer, which
    must equal the peerless rollout, and a row of one; ``peer_pool`` "mean";
-   ``peer_window`` 2);
+   ``peer_window`` 2; and the per-row tier at the TPU streamed tier's shape,
+   100 + 100 steps, K = 4, window 0); the shared tier of ``fused_ar_decode``
+   at both transformer presets' shapes, ``peer_pool`` "none" and "mean",
+   window 0 and the preset's (2 at 30 frames), with and without δv, over
+   G = 3 groups (1 row, 37, the rest) under an unsorted gid, one group all
+   masked (equal to the peerless rollout), and without δv against the
+   per-row kernel on gathered copies; the three ``fused_encode_train``
+   kernels (B = 4096 at T = 30, a ragged B, T = 13 and 64): forward and
+   stash against plain, every gradient against autograd through
+   ``_encode``, the reduction equal to the block-order sum, two runs
+   bit-equal;
 4. the ``seq2seq-tf-30`` serving main path: ``serving.make_serve_fn`` behind
    a ``DynamicBatcher`` answers 64 concurrent single-viewer requests and one
    bulk request; every answer equals the direct batched call and the numpy
@@ -84,13 +94,32 @@ one line each or more:
    ``fused_ar_decode``; every answer against the port's plain path on the
    CPU; serve-bench at B = 16384 and 65536; a profile of one B = 16384
    call; both kernels alone against plain (the encoder also against
-   ``nn.TransformerEncoder`` with the same weights) at both batches;
+   ``nn.TransformerEncoder`` with the same weights) at B = 16384;
 14. the ``transformer-30`` training main path: ``train.train_loop`` at
-   B = 4096 with K = 4 peers, noisy teacher forcing annealing 1 → 0.3
-   (autograd through the parallel pass, no kernel in the step, as in JAX),
-   evaluation through both kernels, checkpoints and a resume that equals
-   the uninterrupted run; one step's gradients on the card against the CPU
-   port's with the same noise; the step's speed and profile.
+   B = 4096 with K = 4 peers, noisy teacher forcing annealing 1 → 0.3, the
+   encoder on the three ``fused_encode_train`` kernels (``train_impl``
+   "auto"), evaluation through both serving kernels, checkpoints and a
+   bit-equal resume; one step's gradients on the card against the CPU
+   port's and against plain autograd on the card, with the same noise; the
+   step's speed under "xla" and "auto" in turns, a profile of each; the
+   three kernels alone against plain and ``nn.TransformerEncoder`` under
+   autograd;
+15. the ``transformer-10s`` serving main path (100 + 100 frames, K = 4,
+   window 8): the batcher with per-row peers (K, two, all masked) in front
+   of the plain encoder and the per-row decode kernel, every answer against
+   the CPU plain path; serve-bench at B = 4096 and 16384, fused and plain;
+   the grouped gateway (``make_grouped_serve_fn`` → the shared tier with
+   δv, through ``grouped_predict``) against per-row serving at the
+   daemon's shape, 256 rows over 8 videos of unequal counts with a masked
+   peer, and at B = 4096 and 16384 (G = 8); grouped against per-row calls
+   timed at both batches, profiles of both at 4096; the shared tier alone against plain at B = 4096, and the
+   per-row kernel alone at the TPU streamed tier's shape (window 0);
+   ``transformer-30`` grouped at B = 16384;
+16. the ``transformer-10s`` training main path: ``train.train_loop`` at
+   B = 1024 (plain encoder at T = 100, as in JAX), evaluation through the
+   per-row decode kernel, checkpoints, a bit-equal resume; the step's speed
+   and profile; the plain encoder against ``nn.TransformerEncoder`` at
+   T = 100.
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -119,6 +148,7 @@ from longterm360fov_tpu_torch.models import cross_user, fusion, get_family, tran
 from longterm360fov_tpu_torch.models.cell import LSTMParams
 from longterm360fov_tpu_torch.ops import (_build, conv_resize, fused_lstm, lstm_align, lstm_ss, lstm_train,
                                           transformer_decode, transformer_encode)
+from longterm360fov_tpu_torch.ops import transformer_encode_train as encode_train
 from longterm360fov_tpu_torch.params import params_from_numpy, tree_leaves, tree_unflatten
 
 PRESET = "seq2seq-tf-30"
@@ -126,6 +156,7 @@ CU_PRESET = "stacked-ss-crossuser"
 CU10_PRESET = "stacked-ss-crossuser-10s"
 FU_PRESET = "video-fusion"
 TF_PRESET = "transformer-30"
+TF10_PRESET = "transformer-10s"
 KERNEL_TOL = 1e-4  # serve kernel vs plain, normalized outputs, f32 after 60 steps
 ORACLE_TOL = 1e-4  # batcher answers vs the numpy oracle or the CPU plain path, unit xyz
 # encode kernel vs plain: exact f32 FMAs in another order over 30 steps of a
@@ -157,15 +188,46 @@ ALIGN_SRC = "longterm360fov_tpu_torch/csrc/lstm_align.cu"
 CONV_SRC = "longterm360fov_tpu_torch/csrc/conv_resize.cu"
 TENC_SRC = "longterm360fov_tpu_torch/csrc/transformer_encode.cu"
 TDEC_SRC = "longterm360fov_tpu_torch/csrc/transformer_decode.cu"
+TTRAIN_SRC = "longterm360fov_tpu_torch/csrc/transformer_encode_train.cu"
 S2S_SERVE, S2S_TRAIN = "serve seq2seq-tf-30", "train seq2seq-tf-30"
 CU_SERVE, CU_TRAIN = "serve stacked-ss-crossuser", "train stacked-ss-crossuser"
 CU10_SERVE, CU10_TRAIN = "serve stacked-ss-crossuser-10s", "train stacked-ss-crossuser-10s"
 FE_PATH, FU_SERVE, FU_TRAIN = "features video-fusion", "serve video-fusion", "train video-fusion"
 TF_SERVE, TF_TRAIN = "serve transformer-30", "train transformer-30"
+TF10_SERVE, TF10_GROUPED, TF10_TRAIN = ("serve transformer-10s", "serve transformer-10s grouped",
+                                        "train transformer-10s")
 # the transformer kernels vs plain: 3e-5 absolute on the encoder memory and
 # the normalized outputs, the JAX suite's bound for both TPU kernels
 # (tests/test_transformer_encode.py:35, tests/test_transformer_decode.py:43)
 TF_TOL = 3e-5
+# fused_encode_train's gradients vs autograd through _encode: 2e-4 · max(|g|, 1)
+# per leaf (tests/test_transformer_encode.py:130)
+GRAD_TOL = 2e-4
+# grouped answers vs per-row serving, the JAX suite's bound on angles and
+# tiles (tests/test_serving.py test_grouped_predict_matches_per_row_serve_path):
+# the δv factorisation is exact in real arithmetic, about 1e-5 in f32. Held on
+# pitch and on the great-circle angle between the two predicted directions:
+# yaw alone is ill-conditioned near the poles (a row at pitch -89.2° moved
+# 2.6e-5 in yaw for 1.3e-5 of direction on the CPU; on the card, 1.1e-4 in yaw
+# at B = 4096), and is reported, not held
+ANGLE_TOL, TILES_EQUAL = 1e-4, 0.99
+
+
+def direction_gaps(out_a, out_b, h_out):
+    """Two packed serve outputs (yaw, pitch: H_out each, then the tiles) →
+    (max |Δyaw|, max |Δpitch|, max great-circle angle between the predicted
+    directions, share of equal tiles)."""
+    a, b = (np.asarray(x, np.float64) for x in (out_a, out_b))
+
+    def xyz(o):
+        yaw, pitch = o[:, :h_out], o[:, h_out:2 * h_out]
+        return np.stack([np.cos(pitch) * np.cos(yaw), np.cos(pitch) * np.sin(yaw), np.sin(pitch)], -1)
+
+    chord = np.linalg.norm(xyz(a) - xyz(b), axis=-1)
+    return (float(np.abs(a[:, :h_out] - b[:, :h_out]).max()),
+            float(np.abs(a[:, h_out:2 * h_out] - b[:, h_out:2 * h_out]).max()),
+            float((2 * np.arcsin(np.minimum(chord / 2, 1.0))).max()),
+            float((a[:, 2 * h_out:] == b[:, 2 * h_out:]).mean()))
 # conv_resize vs plain: 1e-5 of max|plain|. The kernel sums the resize's two
 # non-zero taps a row where the einsum sums every term (its zeros exactly),
 # and the K·K conv taps in another order than cuDNN: a few ulps.
@@ -203,6 +265,14 @@ KERNELS = [
      transformer_encode.fused_encode_tokens, TF_SERVE),
     ("fused_ar_decode", TDEC_SRC, "longterm360fov_tpu/ops/transformer_decode.py:754",
      transformer_decode.fused_ar_decode, TF_SERVE),
+    ("fused_ar_decode_shared", TDEC_SRC, "longterm360fov_tpu/ops/transformer_decode.py:754",
+     transformer_decode.fused_ar_decode_shared, TF10_GROUPED),
+    ("encode_train_fwd", TTRAIN_SRC, "longterm360fov_tpu/ops/transformer_encode_train.py:430",
+     encode_train.encode_train_fwd, TF_TRAIN),
+    ("encode_train_bwd", TTRAIN_SRC, "longterm360fov_tpu/ops/transformer_encode_train.py:486",
+     encode_train.encode_train_bwd, TF_TRAIN),
+    ("encode_train_dw", TTRAIN_SRC, "longterm360fov_tpu/ops/transformer_encode_train.py:486",
+     encode_train.encode_train_dw, TF_TRAIN),
 ]
 WRAPPERS = {name: wrapper for name, _, _, wrapper, _ in KERNELS}
 ERRS = {name: 0.0 for name in WRAPPERS}  # max abs error vs plain over every check
@@ -636,6 +706,23 @@ def check_all_kernels(dev):
     print(f"fused_ar_decode vs plain, hidden 128, L=2, 30+30 steps, B=4099 (with peers: a row with no valid peer, "
           f"equal to the peerless rollout, and a row with one): max_abs_err {json.dumps(errs)} (tolerance {TF_TOL})",
           flush=True)
+    err = check_tf_decode(dev, 2053, 4, "none", 0, seed=5, t=100)
+    print(f"fused_ar_decode per-row tier at the TPU streamed tier's shape (100+100 steps, K=4: 400 peer tokens, "
+          f"window 0, B=2053): max_abs_err {err:.3e} (tolerance {TF_TOL})", flush=True)
+    errs = {}
+    for t, w in ((30, 2), (100, 8)):
+        for pool, window, with_dv in (("none", 0, True), ("none", w, False), ("mean", 0, False), ("mean", w, True),
+                                      ("none", w, True)):
+            errs[f"{t}+{t} pool={pool} window={window} dv={with_dv}"] = check_tf_shared(
+                dev, 2053 if t == 100 else 4099, t, pool, window, with_dv, seed=t + window)
+    print(f"fused_ar_decode shared tier vs plain, hidden 128, L=2, K=4, G=3 groups (1 row, 37, the rest; gid "
+          f"unsorted; one group with every peer masked, equal to the peerless rollout; without δv also against "
+          f"the per-row kernel on gathered copies): max_abs_err {json.dumps(errs)} (tolerance {TF_TOL})", flush=True)
+    errs = {f"B={b} T={t} L={l}": check_encode_train(dev, b, t, l, seed=i, repeat=i == 0)
+            for i, (b, t, l) in enumerate(((TRAIN_B, 30, 2), (4099, 30, 2), (4099, 13, 2), (1001, 64, 1)))}
+    print(f"fused_encode_train kernels vs plain, hidden 128 (forward and stash vs plain {TF_TOL}; every gradient "
+          f"vs autograd through _encode {GRAD_TOL}·max(|g|, 1); the reduction equal to the block-order sum; two runs "
+          f"at B={TRAIN_B} bit-equal): {json.dumps(errs)}", flush=True)
 
 
 # --------------------------------------------------------------- phase 4: seq2seq-tf-30 serving
@@ -767,7 +854,7 @@ def synthetic_windows(cfg):
     return data.windows_from_store(store, cfg.model.h_in, cfg.model.h_out, stride=cfg.stride, n_other_users=k)
 
 
-def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL, windows_=None, step_check=True):
+def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL, windows_=None, step_check=True, resume_tol=1e-6):
     """train_loop through the kernels with evaluation and checkpoints, then
     a resume from the middle checkpoint, which must equal the uninterrupted
     run (the scheduled-sampling coins are drawn from (seed, step), so they
@@ -776,8 +863,9 @@ def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL, windows_=None, s
     coins, within ``step_tol`` per residual dtype. ``also``: the kernels of
     other rows the path must launch (its evaluation's serving kernels, the
     encoder's); ``windows_`` (train, test), else the synthetic store's;
-    ``step_check=False`` for a family whose step has no kernel (the
-    transformer: autograd through the parallel pass, as in JAX)."""
+    ``step_check=False`` for the transformer, whose step is checked by
+    tf_grad_check; ``resume_tol`` the largest |params - uninterrupted|
+    after the resume (0: bit-equal)."""
     fam = get_family(cfg.model_family)
     train_d, test_d = windows_ or synthetic_windows(cfg)
     run = dict(device=dev, eval_data=test_d, **family_fns(fam))
@@ -817,8 +905,8 @@ def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL, windows_=None, s
         resumed, _ = train.train_loop(cfg, fam.init, fam.apply, train_d, state=restored, **run)
     d_resume = max((a - b).abs().max().item() for a, b in zip(tree_leaves(full.params), tree_leaves(resumed.params)))
     print(f"{path}: resume from the checkpoint at step {mid} to step {resumed.step}; max |params - "
-          f"uninterrupted| {d_resume:.3e} (tolerance 1e-6)", flush=True)
-    if resumed.step != cfg.steps or not d_resume <= 1e-6:
+          f"uninterrupted| {d_resume:.3e} (tolerance {resume_tol})", flush=True)
+    if resumed.step != cfg.steps or not d_resume <= resume_tol:
         raise AssertionError("the resumed run differs from the uninterrupted one")
     if not step_check:
         return full, train_d, launches
@@ -1681,12 +1769,87 @@ def check_tf_decode(dev, batch, k, pool, window, seed, t=30):
     return err
 
 
-def drive_tf_serving(cfg, dev, params_np, n_single, n_bulk):
+def check_tf_shared(dev, batch, t, pool, window, with_dv, seed):
+    """The shared tier against the plain shared decode (each row's group's
+    K/V, δv subtracted) → max abs error. G = 3 groups of 1 row, 37 rows and
+    the rest under an unsorted gid; the last group has every peer masked and
+    its rows must equal the peerless rollout; without δv the tier must equal
+    the per-row kernel on gathered copies."""
+    m, params, _, enc, y0, *_ = tf_case(dev, batch, t, t, 2, 0, pool, window, seed)
+    rng = np.random.default_rng(seed)
+    gmask = torch.ones((3, 4), device=dev)
+    gmask[1, 2:] = 0.0
+    gmask[2] = 0.0
+    gmem, gvalid = (x.contiguous() for x in transformer._peer_tokens(params, m, unit_rows(rng, dev, (3, 4, t)),
+                                                                     gmask))
+    gid = np.full(batch, 2)
+    gid[0], gid[1:38] = 0, 1
+    gid = torch.tensor(rng.permutation(gid), device=dev)
+    dv = randn(rng, dev, (batch, 2, m.hidden), 0.1) if with_dv else None
+    out = transformer_decode.fused_ar_decode_shared(params, m, enc, y0, peer_gmem=gmem, peer_gvalid=gvalid,
+                                                    peer_gid=gid, peer_dv=dv)
+    torch.cuda.synchronize()
+    ref = transformer._ar_decode(params, m, enc, gmem, gvalid, y0, peer_gid=gid, peer_dv=dv)
+    err = (out - ref).abs().max().item()
+    alone = transformer_decode.fused_ar_decode(params, m, enc, y0)
+    d_masked = (out[gid == 2] - alone[gid == 2]).abs().max().item()
+    d_rows = 0.0
+    if not with_dv:
+        rows = transformer_decode.fused_ar_decode(params, m, enc, y0, peer_mem=gmem[gid].contiguous(),
+                                                  peer_valid=gvalid[gid].contiguous())
+        d_rows = (out - rows).abs().max().item()
+    if out.shape != (batch, t, 3) or not torch.isfinite(out).all() or not max(err, d_masked, d_rows) <= TF_TOL:
+        raise AssertionError(f"the shared tier disagrees (B={batch}, {t}+{t}, pool={pool}, window={window}, "
+                             f"dv={with_dv}): vs plain {err:.3e}, masked group vs peerless {d_masked:.3e}, vs the "
+                             f"per-row kernel {d_rows:.3e}")
+    note_err("fused_ar_decode_shared", err)
+    return err
+
+
+def check_encode_train(dev, batch, t, layers, seed, repeat=False):
+    """fused_encode_train's three kernels against their plain versions: the
+    forward and its stash within TF_TOL, every gradient (past_n, in_proj and
+    each encoder leaf) against autograd through _encode within GRAD_TOL ·
+    max(|g|, 1), the reduction equal to the block-order sum of the same
+    partials; with ``repeat``, a second run's gradients bit-equal → the
+    errors."""
+    m, params, past_n, *_ = tf_case(dev, batch, t, 4, layers, seed=seed)
+    rng = np.random.default_rng(seed)
+    leaves = [params["in_proj"]] + [lay[sub][leaf] for lay in params["enc"] for sub, leaf in encode_train._ENC_LEAVES]
+    cot = randn(rng, dev, (batch, t, m.hidden))
+    enc_k, stash_k = encode_train.encode_train_fwd(m, past_n, leaves[0], leaves[1:])
+    enc_p, stash_p = encode_train._stash_reference(m, past_n, leaves[0], leaves[1:])
+    err_f = max((enc_k - enc_p).abs().max().item(), (stash_k - stash_p).abs().max().item())
+    _, parts = encode_train.encode_train_bwd(m, past_n, leaves[0], leaves[1:], stash_k, cot, True)
+    err_dw = (encode_train.encode_train_dw(parts) - encode_train._dw_reference(parts)).abs().max().item()
+    del stash_k, stash_p, parts
+    for x in leaves:
+        x.requires_grad_(True)
+    past = past_n.clone().requires_grad_(True)
+
+    def grads(fn):
+        return torch.autograd.grad((fn(params, m, past) * cot).sum(), [past, *leaves])
+
+    got, want = grads(encode_train.fused_encode_train), grads(transformer._encode)
+    torch.cuda.synchronize()
+    err_b = max((a - b).abs().max().item() for a, b in zip(got, want))
+    rel_b = max((a - b).abs().max().item() / max(b.abs().max().item(), 1.0) for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, grads(encode_train.fused_encode_train))) if repeat else None
+    if not (err_f <= TF_TOL and rel_b <= GRAD_TOL and err_dw == 0.0 and same is not False):
+        raise AssertionError(f"fused_encode_train disagrees (B={batch}, T={t}, L={layers}): forward {err_f:.3e}, "
+                             f"gradients {rel_b:.3e} of max(|g|, 1), reduction {err_dw:.3e}, repeat bit-equal {same}")
+    for name, e in (("encode_train_fwd", err_f), ("encode_train_bwd", err_b), ("encode_train_dw", err_dw)):
+        note_err(name, e)
+    return {"forward": err_f, "grad_abs": err_b, "grad_rel": rel_b, "reduction": err_dw, "repeat_bit_equal": same}
+
+
+def drive_tf_serving(cfg, dev, params_np, n_single, n_bulk, path=TF_SERVE, also=()):
     """Single requests that all carry ``other_future``: K peers, two (the
     batcher pads and masks the rest), or K with an explicit all-zero mask
     (no valid peer); one bulk request with an explicit random mask; through
-    the batcher in front of fused_encode_tokens + fused_ar_decode. Every
-    answer against the port's plain path on the CPU."""
+    the batcher in front of the encoder (fused_encode_tokens where T <= 64,
+    else the plain _encode) and fused_ar_decode. Every answer against the
+    port's plain path on the CPU."""
     params = params_from_numpy(params_np, dev)
     m, k = cfg.model, cfg.n_other_users
     rng = np.random.default_rng(15)
@@ -1707,16 +1870,16 @@ def drive_tf_serving(cfg, dev, params_np, n_single, n_bulk):
         requests.append(r)
     mask[n_single:] = (rng.random((n_bulk, k)) < 0.6).astype(np.float32)
     bulk = {"past": pasts[n_single:], "other_future": others[n_single:], "other_mask": mask[n_single:]}
-    (got, stats, _), launches = drive(TF_SERVE, lambda: serve_batched(cfg, transformer, dev, params, requests,
-                                                                      bulk))
+    (got, stats, _), launches = drive(path, lambda: serve_batched(cfg, transformer, dev, params, requests, bulk),
+                                      also)
     batch = {"past": pasts, "other_future": others, "other_mask": mask}
     plain = infer.make_predict_fn(params_from_numpy(params_np, "cpu"), cfg, device="cpu", impl="plain")(batch)
     d_plain = float(np.abs(to_xyz(got) - plain.numpy()).max())
-    print(f"{TF_SERVE}: {n_single} single requests with other_future (K={k}, 2, and K all masked) + 1 bulk "
+    print(f"{path}: {n_single} single requests with other_future (K={k}, 2, and K all masked) + 1 bulk "
           f"({n_bulk} rows, explicit mask) in {stats['batches']} batches; max |xyz - CPU plain path| "
           f"{d_plain:.3e} (tolerance {ORACLE_TOL})", flush=True)
     if not d_plain <= ORACLE_TOL:
-        raise AssertionError("transformer-30 answers disagree with the CPU plain path")
+        raise AssertionError(f"{cfg.name} answers disagree with the CPU plain path")
     return params, launches
 
 
@@ -1789,55 +1952,327 @@ def time_tf_kernels(dev, params, cfg, batch, smi, keep):
 
 
 def tf_grad_check(cfg, state, train_d):
-    """One step's loss and gradients on the card against the CPU port's, on
-    the same batch with the same noisy-teacher-forcing noise (N(0, 1) from
-    numpy, swapped in for the generator's draw on both sides) at a
-    mid-anneal teacher_prob: within STEP_REL_TOL["float32"] of max|CPU| per
-    leaf (f32 on both sides, sums in another order)."""
+    """One step's loss and gradients on the same batch with the same
+    noisy-teacher-forcing noise (N(0, 1) from numpy, swapped in for the
+    generator's draw on both sides) at a mid-anneal teacher_prob: through
+    the kernels on the card (``train_impl`` "auto": fused_encode_train)
+    against the CPU port's (the same hooks, autograd through _encode there),
+    and against plain autograd on the card ("xla"); within
+    STEP_REL_TOL["float32"] of max|reference| per leaf (f32 on both sides,
+    sums in another order)."""
     fam = transformer
     batch = next(train.batch_iterator(train_d, 512, seed=4))
     noise = torch.from_numpy(np.random.default_rng(17).normal(size=(512, cfg.model.h_out, 3)).astype(np.float32))
     draw = fam.draw_noise
     fam.draw_noise = lambda gen, shape: noise.to(gen.device)
+    fns = family_fns(fam)
     try:
         tp = train.teacher_prob_at(cfg, cfg.steps // 2)
-        res = {}
         cpu = tree_unflatten(state.params, [p.cpu() for p in tree_leaves(state.params)])
-        grad_fn = train.make_grad_fn(cfg, fam.apply, extras_fn=fam.batch_extras, gc_metric=False)
-        for where, params in (("card", state.params), ("cpu", cpu)):
+        res = {}
+        for where, c, params in (("card", cfg, state.params), ("cpu", cfg, cpu),
+                                 ("card_xla", cfg.replace(train_impl="xla"), state.params)):
+            grad_fn = train.make_grad_fn(c, fam.apply, gc_metric=False, **fns)
             res[where] = grad_fn(params, batch, torch.Generator(device=params["in_proj"].device), tp)
     finally:
         fam.draw_noise = draw
     (l_k, _), g_k = res["card"]
-    (l_p, _), g_p = res["cpu"]
-    g_err = max((a.cpu() - b).abs().max().item() / (b.abs().max().item() or 1.0)
-                for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)))
-    l_err = abs(l_k.item() - l_p.item()) / abs(l_p.item())
-    rel = STEP_REL_TOL["float32"]
-    print(f"{TF_TRAIN}: one step (B=512, teacher_prob {tp:.3f}, the same noise), card vs CPU: loss {l_err:.2e}, "
-          f"grads {g_err:.2e} of max|CPU| per leaf (tolerance {rel})", flush=True)
-    if not (g_err <= rel and l_err <= rel):
-        raise AssertionError("the transformer step on the card differs from the CPU port's")
+    out, rel = {}, STEP_REL_TOL["float32"]
+    for ref in ("cpu", "card_xla"):
+        (l_p, _), g_p = res[ref]
+        out[ref] = {"loss": abs(l_k.item() - l_p.item()) / abs(l_p.item()),
+                    "grads": max((a.cpu() - b.cpu()).abs().max().item() / (b.abs().max().item() or 1.0)
+                                 for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)))}
+    print(f"{cfg.name} train: one step (B=512, teacher_prob {tp:.3f}, the same noise), the kernels' step on the card "
+          f"vs the CPU port's and vs plain autograd on the card, relative to max|reference| per leaf: "
+          f"{json.dumps(out)} (tolerance {rel})", flush=True)
+    if not all(v["loss"] <= rel and v["grads"] <= rel for v in out.values()):
+        raise AssertionError("the transformer step through the kernels differs from its references")
 
 
-def time_tf_step(cfg, state, train_d, smi, iters=10):
-    """The fast train step of transformer-30 (autograd through the parallel
-    pass: no kernel, as in JAX) → a callable that runs one more, for the
-    profile."""
+def time_tf_step(cfg, state, train_d, path, smi, iters=(3, 6)):
+    """The fast train step (B = cfg.batch_size), plain autograd ("xla")
+    against the kernels' step ("auto"), in turns on the same batch; a
+    profile of each."""
     fam = transformer
     batch = next(train.batch_iterator(train_d, cfg.batch_size, seed=2))
-    step = train.make_train_step(cfg, fam.apply, train.make_optimizer(cfg), gc_metric=False,
-                                 extras_fn=fam.batch_extras)
-    st = {"s": state}
+    opt = train.make_optimizer(cfg)
+    steps = {"plain": train.make_train_step(cfg.replace(train_impl="xla"), fam.apply, opt, gc_metric=False,
+                                            extras_fn=fam.batch_extras),
+             "kernel": train.make_train_step(cfg, fam.apply, opt, gc_metric=False, **family_fns(fam))}
+    st = {}
 
-    def one():
-        st["s"] = step(st["s"], batch)[0]
+    def stepper(which):
+        st[which] = state
 
-    ms = cuda_ms(one, iters)
-    print(f"{TF_TRAIN}: train step (B={cfg.batch_size}, fast step, noisy teacher forcing, CUDA events, {smi}): "
-          f"{json.dumps({'ms_per_step': ms, 'steps_per_sec': 1e3 / ms, 'windows_per_sec': cfg.batch_size * 1e3 / ms})}",
+        def one():
+            st[which] = steps[which](st[which], batch)[0]
+        return one
+
+    ms = in_turns({w: stepper(w) for w in steps}, {"plain": iters[0], "kernel": iters[1]})
+    out = {w: {"ms_per_step": ms[w], "steps_per_sec": 1e3 / ms[w],
+               "windows_per_sec": cfg.batch_size * 1e3 / ms[w]} for w in ms}
+    print(f"{path}: train step (B={cfg.batch_size}, fast step, noisy teacher forcing, CUDA events, {smi}): "
+          f"{json.dumps(out)}", flush=True)
+    for w in steps:
+        profile_device(f"{path}: fast step, {'train_impl xla' if w == 'plain' else 'the kernels (auto)'}",
+                       stepper(w), 3, smi)
+
+
+def encoder_train_work(m, batch):
+    """FLOP of fused_encode_train at width H → (forward, reverse). The
+    reverse counts what the gradients need: the input and the weight
+    gradient of every product (twice the forward's 12·H² MACs a
+    token-layer) and of the attention (twice its 2·T·H), and in_proj's two."""
+    h, t, layers, d = m.hidden, m.h_in, m.layers, m.d
+    fwd = 2 * batch * t * (d * h + layers * (12 * h * h + 2 * t * h))
+    return fwd, 2 * batch * t * (2 * d * h + layers * (24 * h * h + 4 * t * h))
+
+
+def time_encode_train(dev, params, cfg, batch, smi):
+    """Row 11's three kernels alone at the training batch, each against its
+    plain version and the yardstick, in turns: the forward with its stash
+    against _stash_reference and nn.TransformerEncoder's forward under grad;
+    the reverse against _reverse_reference and the yardstick's backward
+    (torch.autograd.grad of its output); the reduction against the
+    block-order loop and one torch.sum. Then the whole differentiable
+    encoder (forward, backward) against autograd through _encode and the
+    yardstick. Bytes: each input read once, each output (the stash, the
+    partials) written once."""
+    m = cfg.model
+    rng = np.random.default_rng(18)
+    past_n = windows.normalize_window(unit_rows(rng, dev, (batch, m.h_in)))[0].contiguous()
+    leaves = [lay[sub][leaf] for lay in params["enc"] for sub, leaf in encode_train._ENC_LEAVES]
+    w_in = params["in_proj"]
+    cot = randn(rng, dev, (batch, m.h_in, m.hidden))
+    enc, stash = encode_train.encode_train_fwd(m, past_n, w_in, leaves)
+    d_x, parts = encode_train.encode_train_bwd(m, past_n, w_in, leaves, stash, cot, True)
+    grads = encode_train.encode_train_dw(parts)
+    net = encoder_library(params, dev).requires_grad_(True)
+    emb = (past_n @ w_in + transformer._pos_enc(m.h_in, m.hidden, device=dev)).requires_grad_(True)
+    lib_out = net(emb)
+    lib_params = [emb, *net.parameters()]
+    ms = {
+        "encode_train_fwd": in_turns({
+            "plain": lambda: encode_train._stash_reference(m, past_n, w_in, leaves),
+            "kernel": lambda: encode_train.encode_train_fwd(m, past_n, w_in, leaves),
+            "library": lambda: net(emb)}, {"plain": 3, "kernel": 5, "library": 5}),
+        "encode_train_bwd": in_turns({
+            "plain": lambda: encode_train._reverse_reference(past_n, w_in, leaves, stash, cot, True),
+            "kernel": lambda: encode_train.encode_train_bwd(m, past_n, w_in, leaves, stash, cot, True),
+            "library": lambda: torch.autograd.grad(lib_out, lib_params, cot, retain_graph=True)},
+            {"plain": 2, "kernel": 5, "library": 5}),
+        "encode_train_dw": in_turns({
+            "plain": lambda: encode_train._dw_reference(parts),
+            "kernel": lambda: encode_train.encode_train_dw(parts),
+            "library": lambda: parts.sum(dim=0)}, {"plain": 1, "kernel": 5, "library": 5}),
+    }
+    fwd_flop, bwd_flop = encoder_train_work(m, batch)
+    io = {"encode_train_fwd": (fwd_flop, [past_n, w_in, *leaves], [enc, stash]),
+          "encode_train_bwd": (bwd_flop, [past_n, w_in, *leaves, stash, cot], [d_x, parts]),
+          "encode_train_dw": (0, [parts], [grads])}
+    for name, t in ms.items():
+        record(name, t, *io[name])
+        print(f"{name} alone (B={batch}, T={m.h_in}, L={m.layers}, {parts.shape[0]} blocks; ms, CUDA events, "
+              f"{smi}): {json.dumps(t)}; bound {TIMES[name]['bound_ms']:.3f} ms by {TIMES[name]['bound_by']}",
+              flush=True)
+    del stash, parts, lib_out
+    x = past_n.clone().requires_grad_(True)
+    for leaf in [w_in, *leaves]:
+        leaf.requires_grad_(True)
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad((fn(params, m, x) * cot).sum(), [x, w_in, *leaves])
+
+    whole = in_turns({"plain": fwd_bwd(transformer._encode), "kernel": fwd_bwd(encode_train.fused_encode_train),
+                      "library": lambda: torch.autograd.grad(net(emb), lib_params, cot)},
+                     {"plain": 3, "kernel": 5, "library": 5})
+    for leaf in [w_in, *leaves]:
+        leaf.requires_grad_(False)
+    print(f"fused_encode_train forward + backward (B={batch}, T={m.h_in}; ms, CUDA events, {smi}): "
+          f"{json.dumps(whole)} (plain: autograd through _encode; library: nn.TransformerEncoder under autograd)",
           flush=True)
-    return one
+
+
+def grouped_inputs(cfg, dev, rows, n_videos, seed):
+    """``rows`` windows over ``n_videos`` videos of unequal counts, keys
+    unsorted, K peers a video (one video with a peer absent), as host arrays
+    → (pasts, keys, sets)."""
+    rng = np.random.default_rng(seed)
+    k, m = cfg.n_other_users, cfg.model
+    weights = np.arange(1, n_videos + 1, dtype=np.float64)
+    keys = rng.choice(n_videos, size=rows, p=weights / weights.sum()).tolist()
+    sets = {v: unit_pasts(rng, k, m.h_out) for v in range(n_videos)}
+    sets[0][k - 1] = 0.0  # a masked peer
+    return unit_pasts(rng, rows, m.h_in), keys, sets
+
+
+def check_grouped_tf(cfg, dev, params, rows, n_videos, label):
+    """The grouped gateway of the transformer (``make_grouped_serve_fn``,
+    the shared tier with δv, through ``grouped_predict``) against per-row
+    serving of the same windows (``make_serve_fn``, each row's peers
+    anchored to it): yaw and pitch within ANGLE_TOL, prefetch tiles equal on
+    more than TILES_EQUAL; the packed batch is the request count (no group
+    padded)."""
+    pasts, keys, sets = grouped_inputs(cfg, dev, rows, n_videos, seed=rows)
+    fn = serving.make_grouped_serve_fn(params, cfg, transformer, device=dev, packed=True)
+    packed = len(serving.group_pack(keys, fn.tile_b)[0])
+    got = serving.grouped_predict(fn, pasts, keys, sets)
+    per_row = serving.make_serve_fn(params, cfg, transformer, device=dev, impl="fused")
+    of = np.stack([sets[v] for v in keys])
+    direct = per_row({"past": pasts, "other_future": of,
+                      "other_mask": (np.abs(of).max(axis=(2, 3)) > 0).astype(np.float32)}).cpu().numpy()
+    d_yaw, d_pitch, d_dir, tiles = direction_gaps(
+        np.concatenate([got["yaw"], got["pitch"], got["prefetch"]], -1), direct, cfg.model.h_out)
+    print(f"{label}: grouped gateway, {rows} windows of {n_videos} videos (counts "
+          f"{np.bincount(keys, minlength=n_videos).tolist()}, keys unsorted, K={cfg.n_other_users} peers sent once "
+          f"a video, one masked), packed batch {packed}: against per-row serving max |Δpitch| {d_pitch:.3e} and "
+          f"great-circle {d_dir:.3e} rad (tolerance {ANGLE_TOL}; |Δyaw| {d_yaw:.3e}), prefetch tiles equal "
+          f"{tiles:.5f} (> {TILES_EQUAL})", flush=True)
+    if not (d_pitch <= ANGLE_TOL and d_dir <= ANGLE_TOL and tiles > TILES_EQUAL and packed == rows):
+        raise AssertionError("the grouped gateway differs from per-row serving")
+
+
+def time_grouped(cfg, dev, params, batch, n_videos, smi, label, profile=False):
+    """One grouped serve call (the G peer sets on the card, the shared tier)
+    against one per-row serve call of the same windows (each row's peers on
+    the card), both from device tensors, in turns; their answers compared
+    first. With ``profile``, a profile of each."""
+    rng = np.random.default_rng(batch)
+    m, k = cfg.model, cfg.n_other_users
+    past = unit_rows(rng, dev, (batch, m.h_in))
+    gfut = unit_rows(rng, dev, (n_videos, k, m.h_out))
+    gmask = torch.ones((n_videos, k), device=dev)
+    gid = torch.tensor(rng.integers(0, n_videos, size=batch), device=dev)
+    grouped = serving.make_grouped_serve_fn(params, cfg, transformer, device=dev, packed=True)
+    per_row = serving.make_serve_fn(params, cfg, transformer, device=dev, impl="fused")
+    rows = {"past": past, "other_future": gfut[gid].contiguous(), "other_mask": gmask[gid].contiguous()}
+    calls = {"per_row": lambda: per_row(rows), "grouped": lambda: grouped(past, gfut, gmask, gid)}
+    d_yaw, d_pitch, d_dir, tiles = direction_gaps(calls["grouped"]().cpu().numpy(),
+                                                  calls["per_row"]().cpu().numpy(), m.h_out)
+    if not (d_pitch <= ANGLE_TOL and d_dir <= ANGLE_TOL and tiles > TILES_EQUAL):
+        raise AssertionError(f"{label}: grouped serving at B={batch} differs from per-row: pitch {d_pitch:.3e}, "
+                             f"direction {d_dir:.3e}, tiles {tiles}")
+    ms = in_turns(calls, {"per_row": 1, "grouped": 1} if batch > 4096 else {"per_row": 2, "grouped": 3})
+    print(f"{label}: serve call at B={batch}, G={n_videos} groups, K={k} (ms, CUDA events, {smi}): "
+          f"{json.dumps(ms)}, traj/s {json.dumps({w: batch * 1e3 / v for w, v in ms.items()})}; grouped against "
+          f"per-row max |Δpitch| {d_pitch:.3e}, great-circle {d_dir:.3e} rad, |Δyaw| {d_yaw:.3e}, tiles equal "
+          f"{tiles:.5f}", flush=True)
+    if profile:
+        for w, fn in calls.items():
+            profile_device(f"{label}: {w} serve call at B={batch}", fn, 2, smi)
+
+
+def time_shared_tier(dev, params, cfg, batch, n_groups, smi):
+    """The shared tier alone at the grouped gateway's shape (G groups of
+    unit-vector peer tracks, random anchors as δv's source), checked first
+    against the plain shared decode, then timed in turns; its numbers go to
+    the kernels line. FLOP: tf_work with the peer K/V products of G rows,
+    not B, and the attention over the in-window tokens of each row's group;
+    bytes: the encoder memory, y0, the group memory and validity, the gid,
+    δv and the weights read once, the output written once. No library call
+    decodes autoregressively with feedback."""
+    rng = np.random.default_rng(20)
+    m, k = cfg.model, cfg.n_other_users
+    past_n = windows.normalize_window(unit_rows(rng, dev, (batch, m.h_in)))[0].contiguous()
+    anchor = unit_rows(rng, dev, (batch,))
+    gmem, gvalid = (x.contiguous() for x in transformer._peer_tokens(params, m, unit_rows(rng, dev, (n_groups, k,
+                                                                                                m.h_out)), None))
+    gid = torch.tensor(rng.integers(0, n_groups, size=batch), device=dev)
+    dv = torch.stack([(anchor @ params["in_proj"]) @ layer["peer_attn"]["wv"] for layer in params["dec"]], 1)
+    enc = transformer._encode(params, m, past_n)
+    y0 = past_n[:, -1].contiguous()
+    with torch.inference_mode():
+        def plain():
+            return transformer._ar_decode(params, m, enc, gmem, gvalid, y0, peer_gid=gid, peer_dv=dv)
+
+        def kernel():
+            return transformer_decode.fused_ar_decode_shared(params, m, enc, y0, peer_gmem=gmem, peer_gvalid=gvalid,
+                                                             peer_gid=gid, peer_dv=dv)
+
+        out = kernel()
+        err = (out - plain()).abs().max().item()
+        if not err <= TF_TOL:
+            raise AssertionError(f"the shared tier at B={batch} disagrees with its plain version: {err:.3e}")
+        note_err("fused_ar_decode_shared", err)
+        ms = in_turns({"plain": plain, "kernel": kernel}, {"plain": 1, "kernel": 2})
+    kt, seg = gmem.shape[1], (gmem.shape[1] if m.peer_pool == "mean" else m.h_out)
+    steps = torch.arange(m.h_out, device=dev)[:, None]
+    win = ((torch.arange(kt, device=dev) % seg)[None] - steps).abs() <= (m.peer_window if m.peer_window > 0
+                                                                        else kt)
+    attended = int((win[None] & gvalid[:, None]).sum(dim=(1, 2))[gid].sum())
+    flop = tf_work(m, batch, kt, attended)[1] - 2 * m.layers * 2 * m.hidden ** 2 * (batch - n_groups) * kt
+    record("fused_ar_decode_shared", ms, flop, [enc, y0, gmem, gvalid, gid, dv] + tree_leaves(params), [out])
+    t = TIMES["fused_ar_decode_shared"]
+    print(f"fused_ar_decode shared tier alone (B={batch}, G={n_groups}, L={m.layers}, {m.h_in}+{m.h_out} steps, "
+          f"K={k}: {kt} peer tokens a group, window {m.peer_window}; ms, CUDA events, {smi}): {json.dumps(ms)}; "
+          f"bound {t['bound_ms']:.3f} ms by {t['bound_by']} ({flop / ms['kernel'] / 1e9:.2f} TFLOP/s); max_abs_err "
+          f"vs plain {err:.3e} (tolerance {TF_TOL}); library: none (AR decode with feedback)", flush=True)
+
+
+def time_decode_streamed_shape(dev, params, cfg, batch, smi):
+    """The per-row decode kernel alone at the TPU streamed tier's shape (the
+    preset's 100 + 100 steps and K peers, window 0: every row's K·T peer
+    tokens attended at every step), checked first, against plain, in
+    turns. Reported beside the kernels line, whose fused_ar_decode entry
+    keeps transformer-30's shape."""
+    m = get_preset(cfg.name, model_peer_window=0).model
+    rng = np.random.default_rng(21)
+    past_n, _, anchor = windows.normalize_window(unit_rows(rng, dev, (batch, m.h_in)))
+    pm, pv = (x.contiguous() for x in transformer._peer_tokens(
+        params, m, unit_rows(rng, dev, (batch, cfg.n_other_users, m.h_out)) - anchor[:, None], None))
+    enc, y0 = transformer._encode(params, m, past_n.contiguous()), past_n[:, -1].contiguous()
+    with torch.inference_mode():
+        def plain():
+            return transformer._ar_decode(params, m, enc, pm, pv, y0)
+
+        def kernel():
+            return transformer_decode.fused_ar_decode(params, m, enc, y0, peer_mem=pm, peer_valid=pv)
+
+        out = kernel()
+        err = (out - plain()).abs().max().item()
+        if not err <= TF_TOL:
+            raise AssertionError(f"fused_ar_decode at the streamed shape disagrees with plain: {err:.3e}")
+        note_err("fused_ar_decode", err)
+        ms = in_turns({"plain": plain, "kernel": kernel}, {"plain": 1, "kernel": 2})
+    flop = tf_work(m, batch, pm.shape[1], batch * m.h_out * pm.shape[1])[1]
+    b_ms, b_by = bound(flop, [enc, y0, pm, pv] + tree_leaves(params), [out])
+    print(f"fused_ar_decode per-row tier alone at the TPU streamed tier's shape (B={batch}, {m.h_in}+{m.h_out} "
+          f"steps, K={cfg.n_other_users}: {pm.shape[1]} peer tokens, window 0; ms, CUDA events, {smi}): "
+          f"{json.dumps(ms)}; bound {b_ms:.3f} ms by {b_by}; max_abs_err vs plain {err:.3e} (tolerance {TF_TOL}); "
+          f"library: none (AR decode with feedback)", flush=True)
+
+
+def time_encoder_t100(dev, params, cfg, smi):
+    """At T = 100 the encoder runs the plain _encode (JAX routes no kernel
+    past T = 64): its forward at a serving batch and its forward + backward
+    at the training batch, against nn.TransformerEncoder with the same
+    weights, in turns."""
+    m = cfg.model
+    rng = np.random.default_rng(19)
+    net = encoder_library(params, dev)
+    out = {}
+    for batch, train_ in ((4096, False), (1024, True)):
+        past_n = windows.normalize_window(unit_rows(rng, dev, (batch, m.h_in)))[0].contiguous()
+        emb = past_n @ params["in_proj"] + transformer._pos_enc(m.h_in, m.hidden, device=dev)
+        if train_:
+            leaves = tree_leaves({"in_proj": params["in_proj"], "enc": params["enc"]})
+            for leaf in leaves:
+                leaf.requires_grad_(True)
+            net.requires_grad_(True)
+            cot = randn(rng, dev, (batch, m.h_in, m.hidden))
+            fns = {"plain": lambda: torch.autograd.grad((transformer._encode(params, m, past_n) * cot).sum(), leaves),
+                   "library": lambda: torch.autograd.grad((net(emb) * cot).sum(), list(net.parameters()))}
+        else:
+            fns = {"plain": lambda: transformer._encode(params, m, past_n), "library": lambda: net(emb)}
+        with torch.inference_mode(not train_):
+            out[f"B={batch} {'forward+backward' if train_ else 'forward'}"] = in_turns(fns, {"plain": 3,
+                                                                                           "library": 3})
+        if train_:
+            for leaf in leaves:
+                leaf.requires_grad_(False)
+    print(f"{cfg.name}: plain _encode at T={m.h_in} against nn.TransformerEncoder (ms, CUDA events, {smi}): "
+          f"{json.dumps(out)}", flush=True)
 
 
 # --------------------------------------------------------------- main
@@ -1860,7 +2295,7 @@ def main():
     phase("2 build")
     # 2. build every kernel source, one nvcc each, started together
     sources = ("fused_serve", "lstm_train", "lstm_ss", "lstm_align", "conv_resize", "transformer_encode",
-               "transformer_decode")
+               "transformer_decode", "transformer_encode_train")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         builds = dict(zip(sources, pool.map(_build.build, sources)))
     for name, b in builds.items():
@@ -1915,7 +2350,7 @@ def main():
     c10cfg = get_preset(CU10_PRESET)
     c10params, cu10_serve = drive_cu_serving(c10cfg, dev, cli.bench_params_np(c10cfg, 0), CU10_SERVE, 24, 200)
     check_grouped(c10cfg, dev, c10params, rows=1000, n_videos=5)
-    serve_bench(CU10_PRESET, ((16384, 3), (65536, 2)), smi)
+    serve_bench(CU10_PRESET, ((16384, 2), (65536, 1)), smi)
     profile_device(f"{CU10_SERVE}: serve call at B=65536", serve_call(c10cfg, c10params, dev, 65536), 2, smi)
     time_peer_serve(dev, c10params, c10cfg, 65536, 1, smi)
     for batch, with_library in ((65536, False), (4096, True)):
@@ -1973,24 +2408,61 @@ def main():
     tparams, tf_serve = drive_tf_serving(tfcfg, dev, cli.bench_params_np(tfcfg, 0), 48, 200)
     serve_bench(TF_PRESET, ((16384, 3), (65536, 2)), smi)
     profile_device(f"{TF_SERVE}: serve call at B=16384", serve_call(tfcfg, tparams, dev, 16384), 2, smi)
-    for batch in (65536, 16384):  # the last one's numbers go to the kernels line
-        time_tf_kernels(dev, tparams, tfcfg, batch, smi, keep=batch == 16384)
+    time_tf_kernels(dev, tparams, tfcfg, 16384, smi, keep=True)
     torch.cuda.empty_cache()
 
     phase("14 train transformer-30")
-    # 14. transformer-30 training: autograd through the parallel pass (no
-    # kernel in the step, as in JAX), noisy teacher forcing 1 → 0.3 with its
-    # noise from (seed, step); evaluation serves through both kernels
+    # 14. transformer-30 training: the parallel pass with the encoder on
+    # fused_encode_train's kernels (train_impl "auto"), noisy teacher forcing
+    # 1 → 0.3 with its noise from (seed, step); evaluation serves through both
+    # serving kernels; the resume bit-equal
     ttcfg = get_preset(TF_PRESET, batch_size=TRAIN_B, steps=20, eval_every=10, ckpt_every=10)
     ttrained, ttrain_d, tf_train = drive_training(ttcfg, TF_TRAIN, dev, also=[
-        "fused_encode_tokens", "fused_ar_decode"], step_check=False)
+        "fused_encode_tokens", "fused_ar_decode"], step_check=False, resume_tol=0.0)
     tf_grad_check(ttcfg, ttrained, ttrain_d)
-    step = time_tf_step(ttcfg, ttrained, ttrain_d, smi)
-    profile_device(f"{TF_TRAIN}: fast step", step, 5, smi)
+    time_tf_step(ttcfg, ttrained, ttrain_d, TF_TRAIN, smi)
+    time_encode_train(dev, ttrained.params, ttcfg, TRAIN_B, smi)
+    del ttrained
+    torch.cuda.empty_cache()
+
+    phase("15 serve transformer-10s, grouped")
+    # 15. transformer-10s serving (100 + 100 frames, K = 4, window 8): the
+    # batcher with per-row peers in front of the plain encoder (T = 100) and
+    # the per-row decode kernel; serve-bench; the grouped gateway through the
+    # shared tier against per-row serving, at the daemon's shape (the main
+    # path of the shared tier) and at the matrix's batches, transformer-30's
+    # too; profiles of a grouped and a per-row call
+    t10cfg = get_preset(TF10_PRESET)
+    t10params, _ = drive_tf_serving(t10cfg, dev, cli.bench_params_np(t10cfg, 0), 24, 100,
+                                    path=TF10_SERVE, also=["fused_ar_decode"])
+    serve_bench(TF10_PRESET, ((4096, 2), (16384, 1)), smi)
+    _, tf10_grouped = drive(TF10_GROUPED, lambda: check_grouped_tf(t10cfg, dev, t10params, 256, 8, TF10_GROUPED))
+    for batch in (4096, 16384):
+        check_grouped_tf(t10cfg, dev, t10params, batch, 8, TF10_GROUPED)
+        time_grouped(t10cfg, dev, t10params, batch, 8, smi, TF10_GROUPED, profile=batch == 4096)
+    time_shared_tier(dev, t10params, t10cfg, 4096, 8, smi)
+    time_decode_streamed_shape(dev, t10params, t10cfg, 4096, smi)
+    torch.cuda.empty_cache()
+    check_grouped_tf(tfcfg, dev, tparams, 16384, 8, f"{TF_SERVE} grouped")
+    time_grouped(tfcfg, dev, tparams, 16384, 8, smi, f"{TF_SERVE} grouped")
+    torch.cuda.empty_cache()
+
+    phase("16 train transformer-10s")
+    # 16. transformer-10s training at the matrix's B = 1024: the plain encoder
+    # (T = 100 is past the kernels' 64, as in JAX), K = 4 peers, window 8,
+    # noisy teacher forcing 1 → 0.3; evaluation serves through the per-row
+    # decode kernel; the resume bit-equal; the plain encoder against the
+    # nn.TransformerEncoder yardstick at T = 100
+    t10tcfg = get_preset(TF10_PRESET, batch_size=1024, steps=20, eval_every=10, ckpt_every=10)
+    t10trained, t10train_d, _ = drive_training(t10tcfg, TF10_TRAIN, dev, also=["fused_ar_decode"],
+                                               step_check=False, resume_tol=0.0)
+    time_tf_step(t10tcfg, t10trained, t10train_d, TF10_TRAIN, smi, iters=(2, 2))
+    time_encoder_t100(dev, t10params, t10cfg, smi)
 
     phase("done")
     launches = {S2S_SERVE: s2s_serve, S2S_TRAIN: s2s_train, CU_SERVE: cu_serve, CU_TRAIN: cu_train,
-                CU10_SERVE: cu10_serve, CU10_TRAIN: cu10_train, FE_PATH: fe_launches, TF_SERVE: tf_serve}
+                CU10_SERVE: cu10_serve, CU10_TRAIN: cu10_train, FE_PATH: fe_launches, TF_SERVE: tf_serve,
+                TF_TRAIN: tf_train, TF10_GROUPED: tf10_grouped}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
          "launches": launches[path][name], "max_abs_err": ERRS[name], **TIMES[name]}

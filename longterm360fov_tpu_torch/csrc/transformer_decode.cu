@@ -1,10 +1,12 @@
-// Transformer autoregressive-decode kernel for Hopper (sm_90a), exact f32,
-// in the per-row tiers: no peers, and per-row peer K/V with peer_pool
-// "none" or "mean" and an optional peer window.
+// Transformer autoregressive-decode kernel for Hopper (sm_90a), exact f32:
+// no peers, per-row peer K/V, and group-shared peer K/V with the per-row
+// anchor correction δv; peer_pool "none" or "mean" and an optional peer
+// window in each.
 //
 // Replaces the TPU Pallas kernel of
 //   longterm360fov_tpu/ops/transformer_decode.py::fused_ar_decode
-//   (_decode_kernel)
+//   (_decode_kernel; the group-shared tier attend_peer_shared and
+//   attend_peer_shared_windowed, and attp - dv_ref[l])
 // which runs the whole rollout in one launch: per step t and layer l,
 //   x += Wo·attend(q, self K/V cache)       q, k, v = LN1(x)·Wq, Wk, Wv;
 //                                            k, v appended at row t
@@ -44,6 +46,24 @@
 //   * The self cache (2, L, B, T_out, H) is written at row t and read at
 //     rows < t only, so the wrapper allocates it uninitialized; the current
 //     token's k, v come from shared memory.
+// The group-shared tier (peer_gid given): co-batched viewers of one video
+// attend the same K peer tracks, so the wrapper projects the peer K/V once
+// a group, (G, KT, H), and row b reads group peer_gid[b]'s K/V and
+// validity. The TPU kernel reads the group id once a 128-row tile and
+// needs group-pure tiles (the batch sorted and each group padded to a tile
+// multiple); here it is read per row, so any order is right and nothing is
+// padded. With peer_dv (B, L, H), the peer-attend output of row b at layer
+// l less peer_dv[b, l] goes through Wo_p: the row's anchor shift of the
+// peer tokens, which softmax cancels in K and which the weights, summing to
+// 1, carry into V as a constant. A position with no attendable token still
+// adds exactly 0. What it changes in the bound (transformer-10s: L = 2,
+// 100 + 100 steps, K = 4, window 8, G = 8 at B = 4096): the peer K/V is
+// 410 KB a row-layer per row (3.4 GB at B = 4096) but 6.6 MB in all when
+// shared, which the 50 MB L2 holds, and the wrapper's peer K/V products
+// shrink from 0.43 TFLOP to G rows. The cross and self K/V that every step
+// re-reads (about 130 GB at B = 4096) still come from device memory: the
+// shared tier is up against the same re-read as the per-row one, less the
+// peer share.
 // Later work (not here): bf16 K/V (half the bytes), keeping a block's K/V
 // on chip across steps, the products on the tensor cores.
 
@@ -80,7 +100,8 @@ struct DecParams {
 __global__ void __launch_bounds__(THREADS, 1)
 ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
                  const unsigned char* __restrict__ peer_valid,
-                 float* self_kv, float* __restrict__ out, int batch,
+                 const int* __restrict__ peer_gid,
+                 const float* __restrict__ peer_dv, float* self_kv, float* __restrict__ out, int batch,
                  int layers, int t_in, int t_out, int d, int kt, int window,
                  int seg) {
   extern __shared__ float4 smem4[];
@@ -178,7 +199,8 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
         gemm64(hs, LDX, H, w[P_WQ], H, 0, ws, store_to(qb));
         __syncthreads();
         for (int r = warp; r < nrows; r += THREADS / 32) {
-          const size_t row = (size_t)(b0 + r) * kt;
+          // the row's own peer memory, or its group's
+          const size_t row = (size_t)(peer_gid ? __ldg(peer_gid + b0 + r) : b0 + r) * kt;
           const float* pk = w[P_K] + row * H;
           const float* pv = w[P_V] + row * H;
           const unsigned char* valid = peer_valid + row;
@@ -193,7 +215,13 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
               a.range<true, 8>(pk, pv, H, s0 + max(0, t - window),
                             min(kt, min(s0 + seg, s0 + t + window + 1)), valid);
           }
-          *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = a.out();
+          float4 o = a.out();
+          if (peer_dv != nullptr && a.any) {  // the anchor correction δv
+            const float4 dv = __ldg(
+                reinterpret_cast<const float4*>(peer_dv + ((size_t)(b0 + r) * layers + l) * H) + lane);
+            o = make_float4(o.x - dv.x, o.y - dv.y, o.z - dv.z, o.w - dv.w);
+          }
+          *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = o;
         }
         __syncthreads();
         gemm64(ab, LDX, H, w[P_WO], H, 0, ws, add_to_x);
@@ -253,17 +281,21 @@ extern "C" {
 // peer_valid (batch, kt) bytes (0 = masked; null when kt = 0), self_kv
 // (2, layers, batch, t_out, 128) f32 scratch, out (batch, t_out, d) f32;
 // layer_ptrs holds 24 device pointers a layer in DecPtr's order (the peer
-// ones null when kt = 0). window <= 0: no peer window; else token i of the
-// peer memory is attended at step t when |i % seg - t| <= window. Returns
-// cudaGetLastError() (0 = ok), or cudaErrorInvalidValue for a shape the
-// kernel does not take.
-int transformer_decode_f32(const void* y0, const void* peer_valid, void* self_kv, void* out,
+// ones null when kt = 0). Group-shared peers: peer_gid (batch,) int32 row
+// → group in [0, G), and the peer K, V (G, kt, 128) and peer_valid (G, kt)
+// hold the G groups'; peer_dv (batch, layers, 128) f32 or null. window <=
+// 0: no peer window; else token i of the peer memory is attended at step t
+// when |i % seg - t| <= window. Returns cudaGetLastError() (0 = ok), or
+// cudaErrorInvalidValue for a shape the kernel does not take.
+int transformer_decode_f32(const void* y0, const void* peer_valid, const void* peer_gid,
+                           const void* peer_dv, void* self_kv, void* out,
                            const void* const* layer_ptrs, const void* w_in, const void* w_out,
                            const void* b_out, const void* fln_s, const void* fln_b,
                            const void* pos, int batch, int layers, int t_in, int t_out, int d,
                            int kt, int window, int seg, void* stream) {
   if (batch < 1 || layers < 1 || layers > MAX_LAYERS || t_in < 1 || t_out < 1 || d < 1 ||
-      d > MAX_D || kt < 0 || (kt > 0 && (peer_valid == nullptr || seg < 1)))
+      d > MAX_D || kt < 0 || (kt > 0 && (peer_valid == nullptr || seg < 1)) ||
+      ((peer_gid != nullptr || peer_dv != nullptr) && kt == 0) || (peer_dv != nullptr && peer_gid == nullptr))
     return (int)cudaErrorInvalidValue;
   DecParams p = {};
   for (int l = 0; l < layers; ++l)
@@ -282,8 +314,8 @@ int transformer_decode_f32(const void* y0, const void* peer_valid, void* self_kv
   const int grid = (batch + ROWS - 1) / ROWS;
   ar_decode_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<const float*>(y0), static_cast<const unsigned char*>(peer_valid),
-      static_cast<float*>(self_kv), static_cast<float*>(out), batch, layers, t_in, t_out, d,
-      kt, window, seg);
+      static_cast<const int*>(peer_gid), static_cast<const float*>(peer_dv), static_cast<float*>(self_kv),
+      static_cast<float*>(out), batch, layers, t_in, t_out, d, kt, window, seg);
   return (int)cudaGetLastError();
 }
 

@@ -29,116 +29,18 @@
 // The kernel takes T <= 64 (one viewer's tokens in one block), the JAX
 // routing threshold; the wrapper raises above it.
 
-#include "transformer_common.cuh"
-
-#define MAX_LAYERS 8
+#include "transformer_encode.cuh"
 
 namespace {
 
 using namespace tfm;
-
-// a layer's weights: ln1 scale and bias, wq, wk, wv, wo (H, H), ln2 scale and
-// bias, w1 (H, 4H), b1 (4H,), w2 (4H, H), b2 (H,)
-enum EncPtr { LN1_S, LN1_B, WQ, WK, WV, WO, LN2_S, LN2_B, W1, B1, W2, B2, ENC_PTRS };
-
-struct EncParams {
-  const float* layer[MAX_LAYERS][ENC_PTRS];
-  const float* w_in;  // (d, H)
-  const float* pos;   // (t, H) positional encoding
-};
 
 __global__ void __launch_bounds__(THREADS, 1)
 encode_tokens_kernel(const EncParams p, const float* __restrict__ past,
                      float* __restrict__ enc, int batch, int layers, int t,
                      int d, int seqs) {
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  float* hs = xs + ROWS * LDX;
-  float* big = hs + ROWS * LDX;
-  float* qb = big;
-  float* kb = big + ROWS * LDX;
-  float* vb = big + 2 * ROWS * LDX;
-  float* ab = big + 3 * ROWS * LDX;
-  float* ws = big + BIG;  // gemm64's ring of weight slabs
-  const int b0 = blockIdx.x * seqs;
-  const int n_tok = min(seqs, batch - b0) * t;  // valid token rows
-  const size_t tok0 = (size_t)b0 * t;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  zero_smem(xs, SMEM_FLOATS);
-  __syncthreads();
-  // x = past · in_proj + pos
-  for (int e = threadIdx.x; e < n_tok * H; e += THREADS) {
-    const int m = e / H, n = e - m * H;
-    const float* xp = past + (tok0 + m) * d;
-    float acc = xp[0] * __ldg(p.w_in + n);
-    for (int i = 1; i < d; ++i) acc = fmaf(xp[i], __ldg(p.w_in + i * H + n), acc);
-    xs[m * LDX + n] = acc + __ldg(p.pos + (m % t) * H + n);
-  }
-  __syncthreads();
-
-  for (int l = 0; l < layers; ++l) {
-    const float* const* w = p.layer[l];
-    layer_norm(xs, hs, w[LN1_S], w[LN1_B]);
-    __syncthreads();
-    auto store_to = [](float* dst) {
-      return [dst](int r0, int c0, const float (&acc)[4][8]) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          float* o = dst + (r0 + r) * LDX + c0;
-          *reinterpret_cast<float4*>(o) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-          *reinterpret_cast<float4*>(o + 4) = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-        }
-      };
-    };
-    gemm64(hs, LDX, H, w[WQ], H, 0, ws, store_to(qb));
-    gemm64(hs, LDX, H, w[WK], H, 0, ws, store_to(kb));
-    gemm64(hs, LDX, H, w[WV], H, 0, ws, store_to(vb));
-    __syncthreads();
-    // bidirectional attention: a warp a query row, over its viewer's t keys
-    for (int m = warp; m < n_tok; m += THREADS / 32) {
-      const int first = (m / t) * t;
-      Attend a;
-      a.init(*reinterpret_cast<const float4*>(qb + m * LDX + 4 * lane));
-      a.range<false, 4>(kb + first * LDX, vb + first * LDX, LDX, 0, t, nullptr);
-      *reinterpret_cast<float4*>(ab + m * LDX + 4 * lane) = a.out();
-    }
-    __syncthreads();
-    auto add_to_x = [xs](int r0, int c0, const float (&acc)[4][8]) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) xs[(r0 + r) * LDX + c0 + c] += acc[r][c];
-    };
-    gemm64(ab, LDX, H, w[WO], H, 0, ws, add_to_x);
-    __syncthreads();
-    layer_norm(xs, hs, w[LN2_S], w[LN2_B]);
-    __syncthreads();
-    // u = gelu(h · W1 + b1), 128 columns a pass, into big (q, k, v, a are dead)
-    const float* b1 = w[B1];
-    auto gelu_to_u = [big, b1](int r0, int c0, const float (&acc)[4][8]) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          big[(r0 + r) * LDU + c0 + c] = gelu_tanh(acc[r][c] + __ldg(b1 + c0 + c));
-    };
-    for (int n0 = 0; n0 < MLP; n0 += H) gemm64(hs, LDX, H, w[W1], MLP, n0, ws, gelu_to_u);
-    __syncthreads();
-    const float* b2 = w[B2];
-    auto mlp_to_x = [xs, b2](int r0, int c0, const float (&acc)[4][8]) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) xs[(r0 + r) * LDX + c0 + c] += acc[r][c] + __ldg(b2 + c0 + c);
-    };
-    gemm64(big, LDU, MLP, w[W2], H, 0, ws, mlp_to_x);
-    __syncthreads();
-  }
-  // enc_mem rows out, a warp a row
-  for (int m = warp; m < n_tok; m += THREADS / 32)
-    reinterpret_cast<float4*>(enc + (tok0 + m) * H)[lane] =
-        *reinterpret_cast<const float4*>(xs + m * LDX + 4 * lane);
+  encode_rows<false>(p, past, enc, nullptr, batch, layers, t, d, seqs, reinterpret_cast<float*>(smem4));
 }
 
 }  // namespace

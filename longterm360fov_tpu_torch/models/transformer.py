@@ -9,7 +9,9 @@ viewers' known futures, MLP), then a final LN and the output projection.
 * Training is one parallel pass over the teacher-forced tokens
   (:func:`_parallel_decode`). Its exposure-bias curriculum is noisy teacher
   forcing: with a generator, the teacher inputs get Gaussian noise of sigma
-  ``(1 - teacher_prob) · std(future)``, drawn by :func:`draw_noise`.
+  ``(1 - teacher_prob) · std(future)``, drawn by :func:`draw_noise`. The
+  training hooks :func:`apply_fused_tf` and :func:`apply_fused_ss` run the
+  same pass with the encoder on ``ops.transformer_encode_train``.
 * Inference is the KV-cached autoregressive decode (:func:`_ar_decode`):
   the encoder and peer K/V are projected once, before the loop. It is the
   plain version the decode kernel (``ops.transformer_decode``) is held
@@ -39,7 +41,8 @@ import torch.nn.functional as F
 
 from .seq2seq import Seq2SeqConfig
 
-__all__ = ["init", "apply", "draw_noise", "teacher_tokens", "serve_fused", "batch_extras"]
+__all__ = ["init", "apply", "apply_fused_tf", "apply_fused_ss", "draw_noise", "teacher_tokens", "serve_fused",
+           "batch_extras"]
 
 N_HEADS = 4
 MLP_MULT = 4
@@ -118,13 +121,20 @@ def _attention(p, q_in, kv_in, *, mask=None):
     return _attention_qkv(p, q, k, v, mask=mask)
 
 
-def _attention_qkv(p, q, k, v, *, mask=None):
+def _attention_qkv(p, q, k, v, *, mask=None, v_shift=None):
+    """Attention of split-head q, k, v, then ``wo``; ``v_shift`` (B, H) is
+    subtracted from the merged heads before ``wo``: the group-shared peer
+    tier's anchor correction δv (the weights sum to 1, so a V shifted by a
+    constant shifts the output by it)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bnqd,bnkd->bnqk", q, k) * scale
     if mask is not None:
         logits = logits.masked_fill(~mask[:, None], -1e9)
     w = torch.softmax(logits, dim=-1)
-    return _merge_heads(torch.einsum("bnqk,bnkd->bnqd", w, v)) @ p["wo"]
+    out = _merge_heads(torch.einsum("bnqk,bnkd->bnqd", w, v))
+    if v_shift is not None:
+        out = out - v_shift[:, None, :]
+    return out @ p["wo"]
 
 
 def _pos_enc(t: int, h: int, offset: int = 0, *, device="cpu") -> torch.Tensor:
@@ -190,10 +200,11 @@ def _peer_window_mask(cfg, kt, *, tq=None, t=None, q_offset=0, device="cpu"):
 
 
 def _decoder_block(layer, x, enc_mem, peer_mem, peer_valid, *, causal_mask,
-                   self_kv=None, cross_kv=None, peer_kv=None, peer_tmask=None):
+                   self_kv=None, cross_kv=None, peer_kv=None, peer_tmask=None, peer_dv=None):
     """One decoder layer on (B, Tq, H). With ``self_kv`` = (k, v) the self
     keys and values come from the cache; ``cross_kv``/``peer_kv`` are the
-    precomputed encoder and peer K, V of the decode."""
+    precomputed encoder and peer K, V of the decode; ``peer_dv`` (B, H) the
+    layer's anchor correction, subtracted from the peer-attend output."""
     h_in = _ln(layer["ln1"], x)
     if self_kv is None:
         x = x + _attention(layer["self_attn"], h_in, h_in, mask=causal_mask)
@@ -215,7 +226,7 @@ def _decoder_block(layer, x, enc_mem, peer_mem, peer_valid, *, causal_mask,
             pa = _attention(layer["peer_attn"], q_in, peer_mem, mask=mask3)
         else:
             qp = _split_heads(q_in @ layer["peer_attn"]["wq"])
-            pa = _attention_qkv(layer["peer_attn"], qp, *peer_kv, mask=mask3)
+            pa = _attention_qkv(layer["peer_attn"], qp, *peer_kv, mask=mask3, v_shift=peer_dv)
         # positions with no attendable peer token gate to exactly 0
         has_peer = mask3.any(dim=-1)[..., None]
         x = x + torch.where(has_peer, pa, 0.0)
@@ -256,22 +267,32 @@ def _parallel_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0, future_n, *
     return (x @ params["out_proj"]["w"] + params["out_proj"]["b"]).float()
 
 
-def _ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0):
+def _ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0, *, peer_gid=None, peer_dv=None):
     """KV-cached decode: encoder and peer K, V projected once, before the
     loop; then one token a step through the decoder stack, its output fed
     back. The plain version of ``ops.transformer_decode.fused_ar_decode``.
     The self caches grow by one entry a step; the JAX scan's fixed-size
     caches mask the entries past t to weights of exactly 0, so the two
-    compute the same function."""
+    compute the same function.
+
+    Group-shared peers: with ``peer_gid`` (B,), ``peer_mem`` (G, KT, H) and
+    ``peer_valid`` (G, KT) hold G peer sets; each group's K, V is projected
+    once and row b attends group ``peer_gid[b]``'s, with ``peer_dv`` (B, L,
+    H), when given, subtracted from layer l's peer-attend output before
+    ``wo`` (the per-row anchor correction)."""
     kv = []
     for layer in params["dec"]:
         ca, pa = layer["cross_attn"], layer["peer_attn"]
         ck, cv = _split_heads(enc_mem @ ca["wk"]), _split_heads(enc_mem @ ca["wv"])
         if peer_mem is not None:
             pk, pv = _split_heads(peer_mem @ pa["wk"]), _split_heads(peer_mem @ pa["wv"])
+            if peer_gid is not None:
+                pk, pv = pk[peer_gid], pv[peer_gid]
         else:
             pk = pv = None
         kv.append((ck, cv, pk, pv))
+    if peer_gid is not None:
+        peer_valid = peer_valid[peer_gid]
     pos_all = _pos_enc(cfg.h_out, cfg.hidden, device=y0.device)
     caches = [([], []) for _ in params["dec"]]
     y, ys = y0, []
@@ -280,7 +301,7 @@ def _ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0):
         tmask = None
         if peer_mem is not None and cfg.peer_window > 0:
             tmask = _peer_window_mask(cfg, peer_mem.shape[1], t=t, device=y0.device)[None, :]
-        for layer, (ck, cv, pk, pv), (ks, vs) in zip(params["dec"], kv, caches):
+        for l, (layer, (ck, cv, pk, pv), (ks, vs)) in enumerate(zip(params["dec"], kv, caches)):
             h_in = _ln(layer["ln1"], x)
             ks.append(_split_heads(h_in @ layer["self_attn"]["wk"]))
             vs.append(_split_heads(h_in @ layer["self_attn"]["wv"]))
@@ -288,6 +309,7 @@ def _ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0):
                 layer, x, enc_mem, peer_mem, peer_valid, causal_mask=None,
                 self_kv=(torch.cat(ks, dim=2), torch.cat(vs, dim=2)), cross_kv=(ck, cv),
                 peer_kv=None if pk is None else (pk, pv), peer_tmask=tmask,
+                peer_dv=None if peer_dv is None else peer_dv[:, l],
             )
         x = _ln(params["final_ln"], x)
         y = (x[:, 0] @ params["out_proj"]["w"] + params["out_proj"]["b"]).to(cfg.dtype)
@@ -312,7 +334,13 @@ def apply(
     decode (``future_n`` None) → (B, H_out, D) f32. ``context`` is accepted
     and ignored, as in JAX."""
     del context
-    enc_mem = _encode(params, cfg, past_n)
+    return _decode(params, cfg, _encode(params, cfg, past_n), past_n, future_n, rng, teacher_prob,
+                   other_future_n, other_mask)
+
+
+def _decode(params, cfg, enc_mem, past_n, future_n, rng, teacher_prob, other_future_n, other_mask):
+    """``apply`` after its encoder: the peer tokens, then the parallel pass
+    or the autoregressive decode."""
     peer_mem = peer_valid = None
     if other_future_n is not None:
         peer_mem, peer_valid = _peer_tokens(params, cfg, other_future_n, other_mask)
@@ -321,6 +349,63 @@ def apply(
         return _parallel_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0, future_n, rng=rng,
                                 teacher_prob=teacher_prob)
     return _ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0)
+
+
+def _train_encoder(params, cfg, past_n, compute_dtype):
+    """The training encoder of the fused hooks: ``fused_encode_train`` (its
+    kernels on the card, autograd through ``_encode`` on the CPU) where
+    ``encode_kernel_fits``, else ``_encode``, as the serving path routes."""
+    from ..ops.transformer_encode import encode_kernel_fits
+    from ..ops.transformer_encode_train import fused_encode_train
+
+    if compute_dtype != torch.float32:
+        raise NotImplementedError(
+            f"transformer training: only the exact f32 tier is ported, got compute_dtype={compute_dtype} "
+            f"(ROADMAP.md, slice I)"
+        )
+    if encode_kernel_fits(past_n.shape[1]):
+        return fused_encode_train(params, cfg, past_n.float().contiguous())
+    return _encode(params, cfg, past_n)
+
+
+def apply_fused_tf(
+    params: Dict,
+    cfg: Seq2SeqConfig,
+    past_n: torch.Tensor,
+    future_n: torch.Tensor,
+    *,
+    other_future_n: Optional[torch.Tensor] = None,
+    other_mask: Optional[torch.Tensor] = None,
+    context: Optional[torch.Tensor] = None,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """Teacher-forced training forward: :func:`apply`'s parallel pass with
+    the encoder on ``ops.transformer_encode_train`` (the hook
+    ``train.make_grad_fn`` runs under ``train_impl`` "auto"/"fused")."""
+    del context
+    return _decode(params, cfg, _train_encoder(params, cfg, past_n, compute_dtype), past_n, future_n, None, 1.0,
+                   other_future_n, other_mask)
+
+
+def apply_fused_ss(
+    params: Dict,
+    cfg: Seq2SeqConfig,
+    past_n: torch.Tensor,
+    future_n: torch.Tensor,
+    *,
+    rng: Optional[torch.Generator] = None,
+    teacher_prob=1.0,
+    other_future_n: Optional[torch.Tensor] = None,
+    other_mask: Optional[torch.Tensor] = None,
+    context: Optional[torch.Tensor] = None,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """Noisy-teacher-forcing training forward (the family's scheduled
+    sampling): :func:`apply`'s parallel pass with ``rng`` at
+    ``teacher_prob``, the encoder on ``ops.transformer_encode_train``."""
+    del context
+    return _decode(params, cfg, _train_encoder(params, cfg, past_n, compute_dtype), past_n, future_n, rng,
+                   teacher_prob, other_future_n, other_mask)
 
 
 def serve_fused(
@@ -337,39 +422,60 @@ def serve_fused(
     peer_anchor: Optional[torch.Tensor] = None,
     compute_dtype=torch.float32,
 ) -> torch.Tensor:
-    """Serving decode in its per-row routing: the encoder on the
-    ``fused_encode_tokens`` kernel where ``encode_kernel_fits`` (else the
-    plain ``_encode``), the per-row peer tokens in PyTorch, then the whole
-    rollout on the ``fused_ar_decode`` kernel: on CUDA tensors the kernels,
-    on CPU tensors their plain versions. Past the kernel's own limits it
-    raises: nothing falls back to the plain decode.
+    """Serving decode: the encoder on the ``fused_encode_tokens`` kernel
+    where ``encode_kernel_fits`` (else the plain ``_encode``), the peer
+    tokens in PyTorch, then the whole rollout in one ``fused_ar_decode``
+    launch: on CUDA tensors the kernels, on CPU tensors their plain
+    versions. Past the kernels' own limits it raises: nothing falls back.
 
-    Raising: the group-shared peer tier (``group_future_n``, ``group_mask``,
-    ``peer_gid``, ``peer_anchor``: ROADMAP.md slice H) and a bf16
+    Per-row peers: ``other_future_n`` (B, K, T, D) and ``other_mask``.
+    Group-shared peers (the production wiring of the dedup tier):
+    ``group_future_n`` (G, K, T, D) raw peer sets, ``group_mask`` (G, K),
+    ``peer_gid`` (B,) row → group, in any order; the peer tokens are
+    embedded and their K/V projected once a group. With ``peer_anchor``
+    (B, D), each row's peers are anchored to it, as ``batch_extras`` anchors
+    per-row peers: the peer-token pipeline is affine and attention is
+    shift-invariant in K with weights summing to 1 over V, so the anchor
+    factors out of the shared K/V exactly (in real arithmetic; f32 about
+    1e-5) as δv[l] = (anchor · in_proj) · wv[l], which the decode subtracts
+    from layer l's peer-attend output. JAX's fallback to per-row copies
+    past the TPU's VMEM (``peer_shared_fits``) has no counterpart: the K/V
+    lives in device memory, and past it the allocation raises.
+
+    Raising: per-row and grouped peers together, and a bf16
     ``compute_dtype`` (ROADMAP.md slice I)."""
     del context
-    from ..ops.transformer_decode import fused_ar_decode
+    from ..ops.transformer_decode import fused_ar_decode, fused_ar_decode_shared
     from ..ops.transformer_encode import encode_kernel_fits, fused_encode_tokens
 
-    if any(a is not None for a in (group_future_n, group_mask, peer_gid, peer_anchor)):
-        raise NotImplementedError(
-            "transformer.serve_fused: the group-shared peer tier is not ported yet "
-            "(ROADMAP.md, slice H)"
-        )
     if compute_dtype != torch.float32:
         raise NotImplementedError(
             f"transformer.serve_fused: only the exact f32 tier is ported, got "
             f"compute_dtype={compute_dtype} (ROADMAP.md, slice I)"
         )
-    peer_mem = peer_valid = None
-    if other_future_n is not None:
-        peer_mem, peer_valid = _peer_tokens(params, cfg, other_future_n, other_mask)
-        peer_mem, peer_valid = peer_mem.float().contiguous(), peer_valid.contiguous()
+    grouped = group_future_n is not None
+    if grouped and other_future_n is not None:
+        raise ValueError("pass per-row peers (other_future_n) or grouped peers (group_future_n), not both")
+    if grouped != (peer_gid is not None) or (not grouped and (group_mask is not None or peer_anchor is not None)):
+        raise ValueError("group_future_n and peer_gid come together; group_mask and peer_anchor need them")
     if encode_kernel_fits(past_n.shape[1]):
         enc_mem = fused_encode_tokens(params, cfg, past_n)
     else:
         enc_mem = _encode(params, cfg, past_n)
     y0 = past_n[:, -1, :].to(cfg.dtype).contiguous()
+    if grouped:
+        gmem, gvalid = _peer_tokens(params, cfg, group_future_n, group_mask)
+        dv = None
+        if peer_anchor is not None:
+            e = peer_anchor.float() @ params["in_proj"].float()
+            dv = torch.stack([e @ layer["peer_attn"]["wv"].float() for layer in params["dec"]], dim=1)
+        return fused_ar_decode_shared(params, cfg, enc_mem, y0, peer_gmem=gmem.float().contiguous(),
+                                      peer_gvalid=gvalid.contiguous(), peer_gid=peer_gid.contiguous(),
+                                      peer_dv=dv)
+    peer_mem = peer_valid = None
+    if other_future_n is not None:
+        peer_mem, peer_valid = _peer_tokens(params, cfg, other_future_n, other_mask)
+        peer_mem, peer_valid = peer_mem.float().contiguous(), peer_valid.contiguous()
     return fused_ar_decode(params, cfg, enc_mem, y0, peer_mem=peer_mem, peer_valid=peer_valid)
 
 

@@ -1,31 +1,39 @@
-"""Transformer autoregressive decode, per-row tiers: the hand-written CUDA
+"""Transformer autoregressive decode, f32 tiers: the hand-written CUDA
 kernel and its plain PyTorch version.
 
 Twin of ``longterm360fov_tpu.ops.transformer_decode.fused_ar_decode`` in
-its f32 per-row tiers: no peers, and per-row peer memory with
-``peer_pool`` "none" (K·T_out tokens) or "mean" (T_out tokens), with or
-without the peer window ``|t_k - t| <= cfg.peer_window``. The whole rollout
-(per step and layer: LN, causal self-attention over the KV cache,
-cross-attention to the encoder K/V, peer attention, tanh-GELU MLP; then the
-final LN, the output projection and the feedback) → ``(B, T_out, D)`` f32.
+its f32 tiers: no peers; per-row peer memory; and group-shared peer memory
+(``peer_gmem``/``peer_gvalid``/``peer_gid``, with the per-row anchor
+correction ``peer_dv``); each with ``peer_pool`` "none" (K·T_out tokens) or
+"mean" (T_out tokens), with or without the peer window
+``|t_k - t| <= cfg.peer_window``. The whole rollout (per step and layer:
+LN, causal self-attention over the KV cache, cross-attention to the encoder
+K/V, peer attention, tanh-GELU MLP; then the final LN, the output
+projection and the feedback) → ``(B, T_out, D)`` f32.
 
 * The plain version is ``models.transformer._ar_decode`` given the same
-  encoder memory and peer memory.
+  encoder memory and peer memory (per row, or per group with the row's
+  group id and δv).
 * :func:`fused_ar_decode`, the wrapper: on CPU tensors it runs the plain
   version; on CUDA tensors it projects the cross and peer K/V once with
   ``torch.matmul`` in exact f32 (JAX's ``project_kv`` runs outside the
-  Pallas kernel too) and launches ``csrc/transformer_decode.cu``, whose
-  header says what bounds it and what its design does about that, or
-  raises: on an input that requires grad (no backward, on both devices), on
-  a non-contiguous input, on a type or shape it does not take. It never
-  falls back. ``.launches`` counts its kernel launches.
+  Pallas kernel too; grouped peers once a group) and launches
+  ``csrc/transformer_decode.cu``, whose header says what bounds it and what
+  its design does about that, or raises: on an input that requires grad
+  (no backward, on both devices), on a non-contiguous input, on a type or
+  shape it does not take, on a group id outside ``[0, G)``. It never falls
+  back. ``.launches`` counts its kernel launches in the per-row tiers,
+  :func:`fused_ar_decode_shared` ``.launches`` those of the shared tier.
 
 The model gates peer attention per position, the TPU kernel per row; the
 CUDA kernel follows the model (a position whose window holds no valid token
-adds exactly 0). It keeps the K/V in device memory, so it has no limit of
-its own on K·T: past what the card's memory holds, the allocation raises.
-The group-shared and streamed tiers (ROADMAP.md slice H) and bf16 (slice I)
-are not ported.
+adds exactly 0, δv included). It keeps the K/V in device memory, so it has
+no limit of its own on K·T: past what the card's memory holds, the
+allocation raises. So the TPU's streamed and chunked per-row tiers, which
+stage peer K/V through VMEM and compute the per-row function, have the
+per-row kernel as their counterpart. The group id is read per row: any
+order of ``peer_gid`` is right, where the TPU kernel reads it per 128-row
+tile and needs group-pure tiles. bf16 (slice I) is not ported.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ from . import _build
 from .fused_lstm import _no_tf32
 from .transformer_encode import HIDDEN, MAX_LAYERS, check_card_tensors, layer_pointers, refuse_grad
 
-__all__ = ["fused_ar_decode", "MAX_D"]
+__all__ = ["fused_ar_decode", "fused_ar_decode_shared", "MAX_D"]
 
 MAX_D = 4  # csrc/transformer_decode.cu MAX_D: coordinates a token
 
@@ -63,14 +71,40 @@ def _layer_tensors(layer, ck, cv, pk, pv):
             *ln("ln3"), pa["wq"], pa["wo"], pk, pv, *ln("ln4"), m["w1"], m["b1"], m["w2"], m["b2"]]
 
 
+def _check_groups(batch, layers, h, peer_gmem, peer_gvalid, peer_gid, peer_dv):
+    """Shapes, types and the range of the group ids of the shared tier, on
+    both devices."""
+    if peer_gvalid is None or peer_gid is None:
+        raise ValueError("peer_gmem, peer_gvalid and peer_gid come together")
+    if peer_gmem.dim() != 3 or peer_gmem.shape[0] < 1 or peer_gmem.shape[1] < 1:
+        raise ValueError(f"expected peer_gmem (G, KT, {h}), got {tuple(peer_gmem.shape)}")
+    g, kt = peer_gmem.shape[:2]
+    if tuple(peer_gvalid.shape) != (g, kt) or peer_gvalid.dtype != torch.bool:
+        raise ValueError(f"expected peer_gvalid ({g}, {kt}) bool, got {tuple(peer_gvalid.shape)} "
+                         f"{peer_gvalid.dtype}")
+    if tuple(peer_gid.shape) != (batch,) or peer_gid.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"expected peer_gid ({batch},) int32 or int64, got {tuple(peer_gid.shape)} "
+                         f"{peer_gid.dtype}")
+    if peer_dv is not None and (tuple(peer_dv.shape) != (batch, layers, h) or peer_dv.dtype != torch.float32):
+        raise ValueError(f"expected peer_dv ({batch}, {layers}, {h}) float32, got {tuple(peer_dv.shape)} "
+                         f"{peer_dv.dtype}")
+    lo, hi = peer_gid.aminmax()
+    if lo.item() < 0 or hi.item() >= g:
+        raise ValueError(f"peer_gid must lie in [0, {g}), got values in [{lo.item()}, {hi.item()}]")
+
+
 def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, peer_mem=None,
-                    peer_valid=None, compute_dtype=torch.float32) -> torch.Tensor:
+                    peer_valid=None, peer_gmem=None, peer_gvalid=None, peer_gid=None, peer_dv=None,
+                    compute_dtype=torch.float32) -> torch.Tensor:
     """Whole-horizon decode → (B, cfg.h_out, D) f32 from ``enc_mem``
-    (B, T_in, H) and the last observed position ``y0`` (B, D); with peers,
-    ``peer_mem`` (B, KT, H) and ``peer_valid`` (B, KT) bool, as
-    ``transformer._peer_tokens`` gives them. One kernel launch on the card
-    (the plain ``transformer._ar_decode`` on CPU tensors). The bf16
-    ``compute_dtype`` raises (ROADMAP.md, slice I)."""
+    (B, T_in, H) and the last observed position ``y0`` (B, D); with per-row
+    peers, ``peer_mem`` (B, KT, H) and ``peer_valid`` (B, KT) bool, as
+    ``transformer._peer_tokens`` gives them; with group-shared peers,
+    ``peer_gmem`` (G, KT, H), ``peer_gvalid`` (G, KT) bool, ``peer_gid``
+    (B,) int row → group, and optionally ``peer_dv`` (B, L, H) f32, each
+    row's anchor correction. One kernel launch on the card (the plain
+    ``transformer._ar_decode`` on CPU tensors). The bf16 ``compute_dtype``
+    raises (ROADMAP.md, slice I)."""
     if compute_dtype != torch.float32:
         raise NotImplementedError(
             f"fused_ar_decode: only the exact f32 tier is ported, got "
@@ -78,11 +112,23 @@ def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, pee
         )
     if (peer_mem is None) != (peer_valid is None):
         raise ValueError("peer_mem and peer_valid come together")
+    if peer_gmem is not None and peer_mem is not None:
+        raise ValueError("grouped peers (peer_gmem) replace per-row peers (peer_mem): pass one of them")
+    if peer_dv is not None and peer_gmem is None:
+        raise ValueError("peer_dv (the anchor correction) applies to the group-shared tier only: per-row "
+                         "peers are anchored in their own tokens")
     if enc_mem.dim() != 3 or y0.dim() != 2 or y0.shape[0] != enc_mem.shape[0] or min(enc_mem.shape) < 1:
         raise ValueError(f"expected enc_mem (B, T_in, H) and y0 (B, D), got {tuple(enc_mem.shape)} "
                          f"and {tuple(y0.shape)}")
-    refuse_grad([enc_mem, y0, peer_mem, *tree_leaves(params)], "fused_ar_decode")
+    refuse_grad([enc_mem, y0, peer_mem, peer_gmem, peer_dv, *tree_leaves(params)], "fused_ar_decode")
+    grouped = peer_gmem is not None
+    if grouped:
+        _check_groups(enc_mem.shape[0], len(params["dec"]), enc_mem.shape[2], peer_gmem, peer_gvalid, peer_gid,
+                      peer_dv)
     if enc_mem.device.type == "cpu":
+        if grouped:
+            return transformer._ar_decode(params, cfg, enc_mem, peer_gmem, peer_gvalid, y0,
+                                          peer_gid=peer_gid.long(), peer_dv=peer_dv)
         return transformer._ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0)
     if enc_mem.device.type != "cuda":
         raise ValueError(f"fused_ar_decode runs on cpu or cuda, not {enc_mem.device}")
@@ -96,8 +142,16 @@ def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, pee
     layers = params["dec"]
     if not 1 <= len(layers) <= MAX_LAYERS:
         raise ValueError(f"the kernel takes 1..{MAX_LAYERS} layers, got {len(layers)}")
-    kt = 0
-    if peer_mem is not None:
+    kt, gid = 0, None
+    if grouped:
+        peer_mem, peer_valid, kt = peer_gmem, peer_gvalid, peer_gmem.shape[1]
+        if peer_gmem.shape[2] != h:
+            raise ValueError(f"expected peer_gmem (G, KT, {h}), got {tuple(peer_gmem.shape)}")
+        for t in (peer_gvalid, peer_gid):
+            if t.device != dev or not t.is_contiguous():
+                raise ValueError("peer_gvalid and peer_gid must be contiguous tensors on the card")
+        gid = peer_gid.to(torch.int32)
+    elif peer_mem is not None:
         kt = peer_mem.shape[1]
         if peer_mem.shape != (batch, kt, h) or tuple(peer_valid.shape) != (batch, kt) or kt < 1:
             raise ValueError(f"expected peer_mem ({batch}, KT, {h}) and peer_valid ({batch}, KT), got "
@@ -111,8 +165,9 @@ def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, pee
     glob = [params["in_proj"], params["out_proj"]["w"], params["out_proj"]["b"],
             params["final_ln"]["scale"], params["final_ln"]["bias"]]
     check_card_tensors([enc_mem, y0, *glob] + ([peer_mem] if kt else []), dev, "fused_ar_decode",
-                       vectors=weights)
-    # the static cross and peer K/V, projected once for the rollout
+                       vectors=weights + ([] if peer_dv is None else [peer_dv]))
+    # the static cross and peer K/V, projected once for the rollout (grouped
+    # peers: once a group)
     tensors = []
     for layer in layers:
         ca, pa = layer["cross_attn"], layer["peer_attn"]
@@ -125,7 +180,8 @@ def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, pee
     seg = kt if cfg.peer_pool == "mean" else t_out
     with torch.cuda.device(dev):
         err = _library().transformer_decode_f32(
-            y0.data_ptr(), peer_valid.data_ptr() if kt else None, self_kv.data_ptr(), out.data_ptr(),
+            y0.data_ptr(), peer_valid.data_ptr() if kt else None, None if gid is None else gid.data_ptr(),
+            None if peer_dv is None else peer_dv.data_ptr(), self_kv.data_ptr(), out.data_ptr(),
             ptrs, *[t.data_ptr() for t in glob], pos.data_ptr(),
             batch, len(layers), t_in, t_out, d, kt, cfg.peer_window, seg,
             torch.cuda.current_stream().cuda_stream,
@@ -135,11 +191,23 @@ def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, pee
             f"transformer_decode kernel launch failed: "
             f"{_library().transformer_decode_error_string(err).decode()} (cuda error {err})"
         )
-    fused_ar_decode.launches += 1
+    (fused_ar_decode_shared if grouped else fused_ar_decode).launches += 1
     return out
 
 
 fused_ar_decode.launches = 0
+
+
+def fused_ar_decode_shared(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, peer_gmem, peer_gvalid,
+                           peer_gid, peer_dv=None, compute_dtype=torch.float32) -> torch.Tensor:
+    """The group-shared tier: :func:`fused_ar_decode` with grouped peers.
+    Its kernel launches count here, in ``.launches``; the per-row tiers'
+    count on :func:`fused_ar_decode`."""
+    return fused_ar_decode(params, cfg, enc_mem, y0, peer_gmem=peer_gmem, peer_gvalid=peer_gvalid,
+                           peer_gid=peer_gid, peer_dv=peer_dv, compute_dtype=compute_dtype)
+
+
+fused_ar_decode_shared.launches = 0
 
 
 @functools.cache
@@ -147,7 +215,7 @@ def _library() -> ctypes.CDLL:
     """The kernel's library, built at first use and loaded once."""
     lib = _build.load("transformer_decode")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.transformer_decode_f32.argtypes = [vp] * 4 + [ctypes.POINTER(vp)] + [vp] * 6 + [i32] * 8 + [vp]
+    lib.transformer_decode_f32.argtypes = [vp] * 6 + [ctypes.POINTER(vp)] + [vp] * 6 + [i32] * 8 + [vp]
     lib.transformer_decode_f32.restype = i32
     lib.transformer_decode_error_string.argtypes = [i32]
     lib.transformer_decode_error_string.restype = ctypes.c_char_p

@@ -20,13 +20,14 @@ PyTorch twin of the serve-path subset of ``longterm360fov_tpu.serving``:
   of the JAX package into the port's params (seq2seq, cross_user, fusion
   and transformer trees).
 - the grouped gateway: :func:`group_pack`, :func:`make_grouped_serve_fn`
-  (its generic tier: each video's peer set rides to the device once and a
-  per-row ``gfut[gid]`` gather there feeds the family's serve path) and
-  :func:`grouped_predict`, the host side's pack → serve → unsort.
+  (each video's peer set rides to the device once; the transformer's tier
+  projects its K/V once there for the decode kernel's shared tier, the
+  generic tier gathers it per row, ``gfut[gid]``, for the family's serve
+  path) and :func:`grouped_predict`, the host side's pack → serve →
+  unsort.
 
 Not ported yet (ROADMAP.md): the TCP daemon, per-viewer pose windows,
-hot-reload ops (slice 'the TCP daemon and CLI'), the grouped gateway's
-transformer tier, the shared-KV decode (slice H), and the batcher's mesh
+hot-reload ops (slice 'the TCP daemon and CLI'), and the batcher's mesh
 bucket divisor (slice 'parallelism').
 """
 
@@ -649,23 +650,26 @@ def make_grouped_serve_fn(
     order, ``group_mask`` (G, K) validity, ``gid`` (B_packed,) row → group;
     arrays or tensors, moved to ``device``.
 
-    The generic tier of the JAX ``make_grouped_serve_fn``: the per-row peer
-    tensor is gathered on the device (``gfut[gid]``), then the family's
-    ``batch_extras`` (each row's anchor) and its serve path run unchanged:
-    ``serve_fused`` for ``impl="fused"`` (the lockstep-peer kernels under
-    ``peer_align``), ``apply`` for ``"plain"``. Same math as per-row
-    serving; no tile purity needed (``fn.tile_b = 1``). The transformer's
-    shared-KV tier raises: it is not ported yet (ROADMAP.md, slice H)."""
+    Two tiers, as in the JAX ``make_grouped_serve_fn``:
+
+    * the transformer with ``impl="fused"``: ``serve_fused`` on the raw
+      group sets with each row's group id and anchor, so each group's peer
+      K/V is projected once and the decode kernel's shared tier attends it,
+      the per-row anchoring carried by the δv correction;
+    * every other case, the generic tier: the per-row peer tensor is
+      gathered on the device (``gfut[gid]``), then the family's
+      ``batch_extras`` (each row's anchor) and its serve path run
+      unchanged: ``serve_fused`` for ``impl="fused"`` (the lockstep-peer
+      kernels under ``peer_align``), ``apply`` for ``"plain"``.
+
+    Same math as per-row serving. Both read the group id per row, so no
+    tile purity is needed (``fn.tile_b = 1``) and no group is padded."""
     from .train import default_extras
 
     device = torch.device(device)
     if impl not in infer.IMPLS:
         raise ValueError(f"impl must be one of {infer.IMPLS}, got {impl!r}")
-    if cfg.model_family == "transformer":
-        raise NotImplementedError(
-            "make_grouped_serve_fn: the transformer family's shared-KV tier is not ported yet "
-            "(ROADMAP.md, slice H)"
-        )
+    shared_kv = cfg.model_family == "transformer" and impl == "fused"
     extras_fn = getattr(fam, "batch_extras", None) or default_extras
     # behaviour probe, not cfg.n_other_users (K is a serving-time knob): a
     # family that ignores "other_future" would serve every request peerless
@@ -686,10 +690,14 @@ def make_grouped_serve_fn(
                              for x in (past, gfut, gmask))
         gid = torch.as_tensor(gid, dtype=torch.long, device=device)
         past_n, _, anchor = windows.normalize_window(past)
-        kw = extras_fn({"other_future": gfut[gid], "other_mask": gmask[gid]}, anchor)
-        if impl == "fused":
+        if shared_kv:
+            pred_n = fam.serve_fused(params, cfg.model, past_n.contiguous(), group_future_n=gfut,
+                                     group_mask=gmask, peer_gid=gid, peer_anchor=anchor[:, 0])
+        elif impl == "fused":
+            kw = extras_fn({"other_future": gfut[gid], "other_mask": gmask[gid]}, anchor)
             pred_n = fam.serve_fused(params, cfg.model, past_n.contiguous(), **kw)
         else:
+            kw = extras_fn({"other_future": gfut[gid], "other_mask": gmask[gid]}, anchor)
             pred_n = fam.apply(params, cfg.model, past_n, None, **kw)
         xyz = windows.denormalize_window(pred_n, anchor, to_sphere=True)
         yaw, pitch = geometry.xyz_to_euler(xyz)

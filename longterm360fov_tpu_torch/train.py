@@ -18,9 +18,11 @@ Scheduled sampling draws the coins of step i (the transformer family: its
 noisy-teacher-forcing noise) on the params' device from a generator seeded
 from ``(cfg.seed, i)`` (:func:`step_generator`), as :func:`batch_iterator`
 seeds its epochs, so a resumed run draws the same coins with no saved
-generator state. The transformer has no fused training hook, as in JAX: its
-step is autograd through ``apply``'s parallel pass under every
-``train_impl``.
+generator state. The transformer's hooks run ``apply``'s parallel pass
+with the encoder on ``ops.transformer_encode_train`` (its kernels on the
+card) where the window fits it (T <= 64); JAX keeps that kernel off its
+step (``FUSED_TRAIN_ENCODER = False``), so under "xla" and in JAX the step
+is autograd through ``apply``.
 
 Not ported yet, and raising: ``data_parallel`` (ROADMAP.md, slice
 'parallelism').

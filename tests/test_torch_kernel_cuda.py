@@ -16,6 +16,7 @@ from longterm360fov_tpu_torch.models import seq2seq, transformer
 from longterm360fov_tpu_torch.models.cell import LSTMParams
 from longterm360fov_tpu_torch.ops import (conv_resize, fused_lstm, lstm_align, lstm_ss, lstm_train,
                                           transformer_decode, transformer_encode)
+from longterm360fov_tpu_torch.ops import transformer_encode_train as et
 from longterm360fov_tpu_torch.params import params_from_numpy, walk
 
 # the condition string is evaluated when the test runs, not at import
@@ -682,3 +683,132 @@ def test_transformer_kernels_never_fall_back_on_card():
         transformer_decode.fused_ar_decode(params, cfg, enc, y0, compute_dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
         transformer_decode.fused_ar_decode(params, cfg, enc.double(), y0)
+
+
+# ------------------------------------------------- the shared tier and row 11
+# The decode kernel's group-shared tier against the plain shared decode
+# (models.transformer._ar_decode with peer_gid and peer_dv) within 3e-5, and
+# against the per-row kernel on gathered copies; the encoder's training
+# kernels against autograd through models.transformer._encode: the forward
+# within 3e-5, every gradient within 2e-4 · max(|g|, 1) (the JAX suite's
+# bounds, tests/test_transformer_encode.py), two runs bit-equal.
+
+
+def _shared_case(layers, h_in, h_out, batch, k, pool, window, seed=0):
+    """G = 3 peer groups of uneven size (1 row, 37 rows or fewer, the rest)
+    under an unsorted gid, the last group with every peer masked; random δv."""
+    cfg, params, past, enc, y0, *_ = _tfm_case(layers, h_in, h_out, batch, 0, pool, window, seed)
+    rng = np.random.default_rng(seed)
+    gfut = torch.tensor(rng.normal(size=(3, k, h_out, 3)).astype(np.float32) * 0.3, device="cuda")
+    gmask = torch.ones((3, k), device="cuda")
+    gmask[1, 1:] = 0.0
+    gmask[2] = 0.0
+    gid = np.full(batch, 2, np.int32)
+    gid[0] = 0
+    gid[1:min(38, batch)] = 1
+    gid = torch.tensor(rng.permutation(gid), device="cuda")
+    gmem, gvalid = (x.contiguous() for x in transformer._peer_tokens(params, cfg, gfut, gmask))
+    dv = torch.tensor(rng.normal(size=(batch, layers, 128)).astype(np.float32) * 0.1, device="cuda")
+    return cfg, params, enc, y0, gmem, gvalid, gid, dv
+
+
+@pytest.mark.parametrize("with_dv", [False, True])
+@pytest.mark.parametrize("pool,window", [("none", 0), ("mean", 0), ("none", 8), ("mean", 2)])
+@pytest.mark.parametrize("layers,h_in,h_out,batch", [(2, 30, 30, 257), (1, 6, 9, 40)])
+def test_shared_tier_matches_plain(layers, h_in, h_out, batch, pool, window, with_dv):
+    cfg, params, enc, y0, gmem, gvalid, gid, dv = _shared_case(layers, h_in, h_out, batch, 4, pool, window,
+                                                               seed=layers + window)
+    dv = dv if with_dv else None
+    before = transformer_decode.fused_ar_decode_shared.launches
+    out = transformer_decode.fused_ar_decode_shared(params, cfg, enc, y0, peer_gmem=gmem, peer_gvalid=gvalid,
+                                                    peer_gid=gid, peer_dv=dv)
+    torch.cuda.synchronize()
+    assert transformer_decode.fused_ar_decode_shared.launches == before + 1
+    ref = transformer._ar_decode(params, cfg, enc, gmem, gvalid, y0, peer_gid=gid.long(), peer_dv=dv)
+    assert out.shape == (batch, h_out, 3) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 3e-5
+    masked = gid == 2  # every peer masked: the peerless rollout, δv or not
+    alone = transformer_decode.fused_ar_decode(params, cfg, enc, y0)
+    assert (out[masked] - alone[masked]).abs().max().item() <= 3e-5
+    if not with_dv:  # the per-row kernel on gathered copies
+        rows = transformer_decode.fused_ar_decode(params, cfg, enc, y0, peer_mem=gmem[gid.long()].contiguous(),
+                                                  peer_valid=gvalid[gid.long()].contiguous())
+        assert (out - rows).abs().max().item() <= 3e-5
+
+
+def test_shared_tier_never_falls_back_on_card():
+    cfg, params, enc, y0, gmem, gvalid, gid, dv = _shared_case(1, 6, 5, 40, 2, "none", 0)
+    call = transformer_decode.fused_ar_decode
+    with pytest.raises(ValueError, match=r"\[0, 3\)"):
+        call(params, cfg, enc, y0, peer_gmem=gmem, peer_gvalid=gvalid, peer_gid=gid + 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(params, cfg, enc, y0, peer_gmem=gmem, peer_gvalid=gvalid, peer_gid=torch.stack([gid, gid], 1)[:, 0])
+    with pytest.raises(ValueError, match="int32 or int64"):
+        call(params, cfg, enc, y0, peer_gmem=gmem, peer_gvalid=gvalid, peer_gid=gid.float())
+    with pytest.raises(TypeError, match="float32"):
+        call(params, cfg, enc, y0, peer_gmem=gmem.double(), peer_gvalid=gvalid, peer_gid=gid)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(params, cfg, enc, y0, peer_gmem=gmem, peer_gvalid=gvalid, peer_gid=gid,
+             peer_dv=dv.clone().requires_grad_(True))
+
+
+def _encode_train_case(layers, t, batch, seed=0):
+    cfg, params, past, *_ = _tfm_case(layers, t, 4, batch, seed=seed)
+    for layer in params["enc"]:
+        for sub in layer.values():
+            for v in sub.values():
+                v.requires_grad_(True)
+    params["in_proj"].requires_grad_(True)
+    cot = torch.tensor(np.random.default_rng(seed).normal(size=(batch, t, 128)).astype(np.float32), device="cuda")
+    return cfg, params, past.requires_grad_(True), cot
+
+
+def _encoder_leaves(params):
+    return [params["in_proj"]] + [layer[sub][leaf] for layer in params["enc"] for sub, leaf in et._ENC_LEAVES]
+
+
+@pytest.mark.parametrize("layers,t,batch", [(2, 30, 257), (1, 6, 8), (3, 64, 5), (2, 13, 1), (2, 30, 4096)])
+def test_encode_train_kernels_match_autograd(layers, t, batch):
+    cfg, params, past, cot = _encode_train_case(layers, t, batch, seed=layers + t)
+    counts = [f.launches for f in (et.encode_train_fwd, et.encode_train_bwd, et.encode_train_dw)]
+    out = et.fused_encode_train(params, cfg, past)
+    got = torch.autograd.grad((out * cot).sum(), [past, *_encoder_leaves(params)])
+    torch.cuda.synchronize()
+    assert [f.launches for f in (et.encode_train_fwd, et.encode_train_bwd, et.encode_train_dw)] == [
+        c + 1 for c in counts]
+    ref = transformer._encode(params, cfg, past)
+    want = torch.autograd.grad((ref * cot).sum(), [past, *_encoder_leaves(params)])
+    assert (out - ref).abs().max().item() <= 3e-5
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 2e-4 * max(b.abs().max().item(), 1.0)
+
+
+def test_encode_train_gradients_are_bit_equal_on_repeat():
+    cfg, params, past, cot = _encode_train_case(2, 30, 1000)
+    runs = [torch.autograd.grad((et.fused_encode_train(params, cfg, past) * cot).sum(),
+                                [past, *_encoder_leaves(params)]) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_encode_train_without_grad_is_the_serving_kernel():
+    cfg, params, past, _ = _encode_train_case(2, 30, 70)
+    before = (transformer_encode.fused_encode_tokens.launches, et.encode_train_fwd.launches)
+    with torch.no_grad():
+        out = et.fused_encode_train(params, cfg, past)
+        assert (transformer_encode.fused_encode_tokens.launches, et.encode_train_fwd.launches) == (
+            before[0] + 1, before[1])
+        assert torch.equal(out, transformer_encode.fused_encode_tokens(params, cfg, past))
+
+
+def test_encode_train_never_falls_back_on_card():
+    cfg, params, past, _ = _encode_train_case(1, 6, 4)
+    with pytest.raises(ValueError, match="T <= 64"):
+        et.fused_encode_train(params, cfg, torch.zeros(2, 65, 3, device="cuda", requires_grad=True))
+    with pytest.raises(NotImplementedError, match="slice I"):
+        et.fused_encode_train(params, cfg, past, compute_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        et.fused_encode_train(params, cfg, past.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        params["enc"][0]["attn"]["wq"] = params["enc"][0]["attn"]["wq"].detach().t()
+        et.fused_encode_train(params, cfg, past)

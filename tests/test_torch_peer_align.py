@@ -263,8 +263,8 @@ def test_grouped_gateway_rejects_what_it_does_not_serve():
         serving.grouped_predict(fn, pasts[:, :3], keys, sets)
     with pytest.raises(ValueError, match="no peer context"):
         serving.make_grouped_serve_fn(tp, get_preset("seq2seq-tf-30"), seq2seq, device="cpu")
-    with pytest.raises(NotImplementedError, match="transformer"):
-        serving.make_grouped_serve_fn(tp, get_preset("transformer-30"), seq2seq, device="cpu")
+    with pytest.raises(ValueError, match="impl must be"):
+        serving.make_grouped_serve_fn(tp, get_preset("transformer-30"), seq2seq, device="cpu", impl="xla")
 
 
 @pytest.mark.parametrize("case", ["default-mask", "fewer-peers", "explicit-mask"])

@@ -127,7 +127,8 @@ def test_optimizer_updates_match_optax(scale):
 def _transformer_cfgs(**kw):
     """A cut transformer-30: 2 layers at hidden 32, noisy teacher forcing
     annealed 1 → 0.3, gc_weight 0.3, a warmup-cosine schedule."""
-    model = dict(hidden=32, layers=2, **kw.pop("model", {}))
+    model = dict(hidden=32, layers=2)
+    model.update(kw.pop("model", {}))
     return _cfgs(model=model, model_family="transformer", scheduled_sampling=True, ss_end=0.3,
                  gc_weight=0.3, warmup_steps=2, **kw)
 
@@ -150,18 +151,19 @@ def _patch_noise(monkeypatch, shape):
     monkeypatch.setattr(transformer, "draw_noise", lambda gen, shp: torch.from_numpy(noise))
 
 
-@pytest.mark.parametrize("case", ["fused", "fused-accum2", "fused-fast", "xla-gc-warmup", "transformer"])
+@pytest.mark.parametrize("case", ["fused", "fused-accum2", "fused-fast", "xla-gc-warmup", "transformer",
+                                  "transformer-10s"])
 def test_train_trajectory_matches_jax(case, monkeypatch):
     """N steps of the port's train step against the JAX make_train_step from
     the same params on the same batch_iterator batches: the fused path with
     f32 residuals on both sides (JAX kernels in interpret mode), with
     accum=2, as the gc_metric=False fast step, and the plain ("xla") path
-    with the great-circle loss and a warmup-cosine schedule; and a cut
+    with the great-circle loss and a warmup-cosine schedule; a cut
     transformer-30 with peers (autograd through the parallel pass on both
-    sides, as the family has no fused hook) with the same noisy-teacher-
-    forcing noise. Per-step loss within 1e-5 relative and final params
-    within 2e-6 absolute: f32 sums in another order, through 5 Adam updates
-    of lr 3e-3."""
+    sides) with the same noisy-teacher-forcing noise; and a cut
+    transformer-10s (window 8, 12 + 12 frames). Per-step loss within 1e-5
+    relative and final params within 2e-6 absolute: f32 sums in another
+    order, through 5 Adam updates of lr 3e-3."""
     kw = {
         "fused": dict(train_impl="fused"),
         "fused-accum2": dict(train_impl="fused", accum=2),
@@ -170,9 +172,10 @@ def test_train_trajectory_matches_jax(case, monkeypatch):
     }.get(case)
     gc_metric = case != "fused-fast"
     data_np = _windows(64, seed=3)
-    if case == "transformer":
-        jcfg, tcfg = _transformer_cfgs()
-        data_np = _with_peers(data_np, seed=3)
+    if case.startswith("transformer"):
+        model = dict(h_in=12, h_out=12, peer_window=8) if case == "transformer-10s" else {}
+        jcfg, tcfg = _transformer_cfgs(model=model)
+        data_np = _with_peers(_windows(64, seed=3, h_in=tcfg.model.h_in, h_out=tcfg.model.h_out), seed=3)
         _patch_noise(monkeypatch, (tcfg.batch_size, tcfg.model.h_out, 3))
         jfam, tfam = jax_transformer, transformer
         fns_j = fns_t = {}
