@@ -35,11 +35,25 @@ one line each or more:
    kernels (B = 4096 at T = 30, a ragged B, T = 13 and 64): forward and
    stash against plain, every gradient against autograd through
    ``_encode``, the reduction equal to the block-order sum, two runs
-   bit-equal;
+   bit-equal; ``fused_lstm_cell`` (D_in = 3 and 128, B = 16384 and 16383)
+   against ``lstm_cell``; ``fused_decode`` (L = 1 and 2, C = 0 and 128, 30
+   steps, B = 16383) against its plain version; the bf16 tiers of
+   ``fused_encode_tokens`` and ``fused_ar_decode`` at both transformer
+   presets' shapes (per row: no peers, K = 4 "none" and "mean", the
+   windows; the shared tier with δv) against their bf16 plain versions
+   (BF16_TOL) and the f32 plain versions (JAX's 0.08);
 4. the ``seq2seq-tf-30`` serving main path: ``serving.make_serve_fn`` behind
    a ``DynamicBatcher`` answers 64 concurrent single-viewer requests and one
    bulk request; every answer equals the direct batched call and the numpy
    oracle. Then serve-bench and ``fused_serve`` alone, kernel against plain;
+   4b. the same preset on the paths of the cell and decode kernels:
+   ``cell="pallas"`` served by ``make_serve_fn(impl="plain")`` behind the
+   batcher at B = 16384 (60 ``fused_lstm_cell`` launches a call), and
+   normalize → ``seq2seq.decode_fused`` → denormalize at B = 16384 and
+   262,144 (30 cell launches and one ``fused_decode``); every answer against
+   the ``cell="xla"`` plain path and the numpy oracle, ``decode_fused``
+   against ``serve_fused``; both paths timed, and each kernel alone against
+   plain (the cell also against ``torch.lstm_cell``);
 5. the ``seq2seq-tf-30`` training main path: ``train.train_loop`` at
    B = 4096 through the ``lstm_seq_states`` kernels, with evaluation,
    checkpoints and a resume that equals the uninterrupted run, one step
@@ -91,10 +105,14 @@ one line each or more:
 13. the ``transformer-30`` serving main path: the batcher with
    ``other_future`` in every request (K = 4 peers, two, or K all masked)
    and one bulk request, in front of ``fused_encode_tokens`` and
-   ``fused_ar_decode``; every answer against the port's plain path on the
-   CPU; serve-bench at B = 16384 and 65536; a profile of one B = 16384
-   call; both kernels alone against plain (the encoder also against
-   ``nn.TransformerEncoder`` with the same weights) at B = 16384;
+   ``fused_ar_decode`` in their bf16 tiers (``serve_fused``'s default on
+   the card), every answer against the port's plain path on the CPU in the
+   same tier (BF16_ANSWER_TOL); the same with an explicit f32
+   ``compute_dtype`` against the f32 plain path (ORACLE_TOL); serve-bench
+   at B = 16384 and 65536; a profile of one B = 16384 call; both kernels
+   alone in both tiers against plain (the encoder also against
+   ``nn.TransformerEncoder`` with the same weights, in the tier's type) at
+   B = 16384;
 14. the ``transformer-30`` training main path: ``train.train_loop`` at
    B = 4096 with K = 4 peers, noisy teacher forcing annealing 1 → 0.3, the
    encoder on the three ``fused_encode_train`` kernels (``train_impl``
@@ -106,15 +124,17 @@ one line each or more:
    autograd;
 15. the ``transformer-10s`` serving main path (100 + 100 frames, K = 4,
    window 8): the batcher with per-row peers (K, two, all masked) in front
-   of the plain encoder and the per-row decode kernel, every answer against
-   the CPU plain path; serve-bench at B = 4096 and 16384, fused and plain;
-   the grouped gateway (``make_grouped_serve_fn`` → the shared tier with
-   δv, through ``grouped_predict``) against per-row serving at the
-   daemon's shape, 256 rows over 8 videos of unequal counts with a masked
-   peer, and at B = 4096 and 16384 (G = 8); grouped against per-row calls
-   timed at both batches, profiles of both at 4096; the shared tier alone against plain at B = 4096, and the
-   per-row kernel alone at the TPU streamed tier's shape (window 0);
-   ``transformer-30`` grouped at B = 16384;
+   of the plain encoder and the per-row decode kernel (bf16 by default,
+   against the CPU plain path in bf16; and in f32 against the f32 one);
+   serve-bench at B = 4096 and 16384, fused and plain; the grouped gateway
+   (``make_grouped_serve_fn`` → the shared tier with δv, through
+   ``grouped_predict``) against per-row serving at the daemon's shape, 256
+   rows over 8 videos of unequal counts with a masked peer, in bf16
+   (GROUPED_BF16_TOL) and in f32 (ANGLE_TOL), and at B = 4096 and 16384
+   (G = 8); grouped against per-row calls timed at both batches, profiles
+   of both at 4096; the f32 shared tier alone against plain at B = 4096,
+   and the per-row kernel alone at the TPU streamed tier's shape (window
+   0); ``transformer-30`` grouped at B = 16384;
 16. the ``transformer-10s`` training main path: ``train.train_loop`` at
    B = 1024 (plain encoder at T = 100, as in JAX), evaluation through the
    per-row decode kernel, checkpoints, a bit-equal resume; the step's speed
@@ -125,17 +145,21 @@ Each main path runs with every launch counter set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
 Then one JSON line on the kernels (launches on their main path, max error
 over every check, kernel, plain and library times by CUDA events, and the
-bound: the larger of the work's FLOP over the f32 FMA peak and its bytes
-over the memory rate), and last the contract line
+bound: the larger of the work's FLOP over the peak of its type, the f32
+FMA peak or, for the bf16 tiers' products, the dense bf16 tensor-core
+peak, and its bytes, in the types the tier stores, over the memory rate),
+and last the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
+import functools
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -144,8 +168,8 @@ import torch
 from longterm360fov_tpu_torch import checkpoint, cli, data, infer, oracle, serving, traces, train, windows
 from longterm360fov_tpu_torch.config import get_preset
 from longterm360fov_tpu_torch.features import equirect
-from longterm360fov_tpu_torch.models import cross_user, fusion, get_family, transformer
-from longterm360fov_tpu_torch.models.cell import LSTMParams
+from longterm360fov_tpu_torch.models import cross_user, fusion, get_family, seq2seq, transformer
+from longterm360fov_tpu_torch.models.cell import LSTMParams, lstm_cell
 from longterm360fov_tpu_torch.ops import (_build, conv_resize, fused_lstm, lstm_align, lstm_ss, lstm_train,
                                           transformer_decode, transformer_encode)
 from longterm360fov_tpu_torch.ops import transformer_encode_train as encode_train
@@ -179,7 +203,29 @@ STEP_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 ALIGN_STEP_REL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 TRAIN_B = 4096  # the batch scripts/bench_train.py trains both presets at
 F32_FLOPS = 67e12  # H100 SXM f32 FMA peak outside the tensor cores (data sheet)
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
+# the cell kernel against lstm_cell: one step, exact f32 FMAs in another order
+# (tests/test_fused_lstm.py's bound for the TPU cell)
+CELL_TOL = 1e-5
+# the transformer's bf16 tiers against their bf16 plain versions: both round
+# the same operands to bf16 and sum in f32 in another order, so a rounding may
+# flip, which moves an activation by 2^-8 of itself; past the first flip a
+# row's later roundings fall apart, so at thousands of rows the largest gap is
+# of the size of the tier's own rounding error (this script measured up to
+# 2.03e-2, the decode at B = 16384, against 2.0e-2 to 2.7e-2 between the bf16
+# and f32 plain versions, on an NVIDIA H100 80GB HBM3 at 700 W): 5e-2; and
+# JAX's own bound for the tier against the f32 reference
+# (tests/test_transformer_decode.py:70)
+BF16_TOL, BF16_F32_TOL = 5e-2, 0.08
+# served bf16 answers (unit xyz) against the CPU plain path in the same tier
+# (measured 1.30e-2 over 248 rows in the same run)
+BF16_ANSWER_TOL = 5e-2
+# grouped against per-row serving in bf16 (great-circle and pitch, radians):
+# grouped rows round the raw group K/V and subtract δv in f32, per-row rows
+# round the anchored K/V, so the two differ by the tier's rounding error;
+# JAX's bound for the tier, read as an angle
+GROUPED_BF16_TOL = 0.08
 
 SERVE_SRC = "longterm360fov_tpu_torch/csrc/fused_serve.cu"
 LSTM_SRC = "longterm360fov_tpu_torch/csrc/lstm_train.cu"
@@ -190,12 +236,14 @@ TENC_SRC = "longterm360fov_tpu_torch/csrc/transformer_encode.cu"
 TDEC_SRC = "longterm360fov_tpu_torch/csrc/transformer_decode.cu"
 TTRAIN_SRC = "longterm360fov_tpu_torch/csrc/transformer_encode_train.cu"
 S2S_SERVE, S2S_TRAIN = "serve seq2seq-tf-30", "train seq2seq-tf-30"
+S2S_CELL, S2S_DECODE = "serve seq2seq-tf-30 cell=pallas", "serve seq2seq-tf-30 decode_fused"
 CU_SERVE, CU_TRAIN = "serve stacked-ss-crossuser", "train stacked-ss-crossuser"
 CU10_SERVE, CU10_TRAIN = "serve stacked-ss-crossuser-10s", "train stacked-ss-crossuser-10s"
 FE_PATH, FU_SERVE, FU_TRAIN = "features video-fusion", "serve video-fusion", "train video-fusion"
-TF_SERVE, TF_TRAIN = "serve transformer-30", "train transformer-30"
-TF10_SERVE, TF10_GROUPED, TF10_TRAIN = ("serve transformer-10s", "serve transformer-10s grouped",
-                                        "train transformer-10s")
+TF_SERVE, TF_SERVE_F32, TF_TRAIN = "serve transformer-30", "serve transformer-30 f32", "train transformer-30"
+TF10_SERVE, TF10_SERVE_F32 = "serve transformer-10s", "serve transformer-10s f32"
+TF10_GROUPED, TF10_GROUPED_F32 = "serve transformer-10s grouped", "serve transformer-10s grouped f32"
+TF10_TRAIN = "train transformer-10s"
 # the transformer kernels vs plain: 3e-5 absolute on the encoder memory and
 # the normalized outputs, the JAX suite's bound for both TPU kernels
 # (tests/test_transformer_encode.py:35, tests/test_transformer_decode.py:43)
@@ -242,6 +290,10 @@ ALIGN_FWD, ALIGN_BWD = "longterm360fov_tpu/ops/lstm_align.py:244", "longterm360f
 # one entry per kernel: "path" is the main path whose run gives its launches
 KERNELS = [
     ("fused_serve", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:503", fused_lstm.fused_serve, S2S_SERVE),
+    ("fused_lstm_cell", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:72", fused_lstm.fused_lstm_cell,
+     S2S_CELL),
+    ("fused_decode", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:183", fused_lstm.fused_decode,
+     S2S_DECODE),
     ("fused_serve_ctx", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:503", fused_lstm.fused_serve, CU_SERVE),
     ("fused_encode", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:741", fused_lstm.fused_encode, CU_SERVE),
     ("lstm_seq_states_fwd", LSTM_SRC, "longterm360fov_tpu/ops/lstm_train.py:172", lstm_train.lstm_fwd, S2S_TRAIN),
@@ -262,11 +314,15 @@ KERNELS = [
     ("aligned_peer_dw", ALIGN_SRC, ALIGN_BWD, lstm_align.peer_dw, CU10_TRAIN),
     ("conv_resize", CONV_SRC, "longterm360fov_tpu/ops/conv_resize.py:75", conv_resize.fused_conv_resize, FE_PATH),
     ("fused_encode_tokens", TENC_SRC, "longterm360fov_tpu/ops/transformer_encode.py:226",
-     transformer_encode.fused_encode_tokens, TF_SERVE),
+     transformer_encode.fused_encode_tokens, TF_SERVE_F32),
     ("fused_ar_decode", TDEC_SRC, "longterm360fov_tpu/ops/transformer_decode.py:754",
-     transformer_decode.fused_ar_decode, TF_SERVE),
+     transformer_decode.fused_ar_decode, TF_SERVE_F32),
     ("fused_ar_decode_shared", TDEC_SRC, "longterm360fov_tpu/ops/transformer_decode.py:754",
-     transformer_decode.fused_ar_decode_shared, TF10_GROUPED),
+     transformer_decode.fused_ar_decode_shared, TF10_GROUPED_F32),
+    ("fused_encode_tokens_bf16", TENC_SRC, "longterm360fov_tpu/ops/transformer_encode.py:226",
+     transformer_encode.fused_encode_tokens_bf16, TF_SERVE),
+    ("fused_ar_decode_bf16", TDEC_SRC, "longterm360fov_tpu/ops/transformer_decode.py:754",
+     transformer_decode.fused_ar_decode_bf16, TF_SERVE),
     ("encode_train_fwd", TTRAIN_SRC, "longterm360fov_tpu/ops/transformer_encode_train.py:430",
      encode_train.encode_train_fwd, TF_TRAIN),
     ("encode_train_bwd", TTRAIN_SRC, "longterm360fov_tpu/ops/transformer_encode_train.py:486",
@@ -319,13 +375,14 @@ def in_turns(fns, iters):
     return ms
 
 
-def bound(flop, reads, writes):
+def bound(flop, reads, writes, peak=F32_FLOPS):
     """The least time the card could take for this work: the larger of its
-    FLOP over the f32 FMA peak and its bytes (every input read once, every
-    output written once) over the memory rate → (ms, "operations" or
-    "bytes")."""
+    FLOP over ``peak`` (the f32 FMA peak; the bf16 tiers' products at the
+    bf16 tensor-core peak) and its bytes (every input read once, every
+    output written once, in the types given) over the memory rate → (ms,
+    "operations" or "bytes")."""
     nbytes = sum(t.numel() * t.element_size() for t in reads + writes if t is not None)
-    ops_ms, bytes_ms = flop / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    ops_ms, bytes_ms = flop / peak * 1e3, nbytes / HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -335,9 +392,9 @@ def stack_flop(batch, t_len, ins, hidden):
     return sum(2 * batch * t_len * (i + hidden) * 4 * hidden for i in ins)
 
 
-def record(name, ms, flop, reads, writes):
+def record(name, ms, flop, reads, writes, peak=F32_FLOPS):
     """Keep a kernel's times and its bound for the kernels line."""
-    b_ms, b_by = bound(flop, reads, writes)
+    b_ms, b_by = bound(flop, reads, writes, peak)
     TIMES[name] = {"ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms.get("library"),
                    "bound_ms": b_ms, "bound_by": b_by}
 
@@ -433,6 +490,46 @@ def check_encode(dev, batch, layers, seed, t=30):
     if not err <= ENC_TOL:
         raise AssertionError(f"fused_encode disagrees with its plain version (B={batch}, L={layers}): {err:.3e}")
     note_err("fused_encode", err)
+    return err
+
+
+def check_cell(dev, batch, d_in, seed):
+    """fused_lstm_cell against lstm_cell on the same inputs → max abs error
+    over h and c."""
+    rng = np.random.default_rng(seed)
+    (p,) = stack(rng, dev, d_in, 1)
+    x, h, c = randn(rng, dev, (batch, d_in)), randn(rng, dev, (batch, 128), 0.5), randn(rng, dev, (batch, 128), 0.5)
+    got = fused_lstm.fused_lstm_cell(p, x, (h, c))
+    torch.cuda.synchronize()
+    want = lstm_cell(p, x, (h, c))
+    if any(g.shape != (batch, 128) or not torch.isfinite(g).all() for g in got):
+        raise AssertionError("fused_lstm_cell output not finite or misshapen")
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if not err <= CELL_TOL:
+        raise AssertionError(f"fused_lstm_cell disagrees with lstm_cell (B={batch}, D_in={d_in}): {err:.3e}")
+    note_err("fused_lstm_cell", err)
+    return err
+
+
+def check_decode(dev, batch, layers, ctx_dim, seed, t=30):
+    """fused_decode against fused_decode_reference from random states →
+    max abs error."""
+    rng = np.random.default_rng(seed)
+    dec = stack(rng, dev, 3 + ctx_dim, layers)
+    pw, pb = randn(rng, dev, (128, 3), 0.1), randn(rng, dev, (3,), 0.1)
+    h0, c0 = randn(rng, dev, (layers, batch, 128), 0.3), randn(rng, dev, (layers, batch, 128), 0.3)
+    y0 = randn(rng, dev, (batch, 3), 0.1)
+    ctx = randn(rng, dev, (batch, ctx_dim)) if ctx_dim else None
+    out = fused_lstm.fused_decode(dec, pw, pb, h0, c0, y0, t, context=ctx)
+    torch.cuda.synchronize()
+    ref = fused_lstm.fused_decode_reference(dec, pw, pb, h0, c0, y0, t, ctx)
+    if out.shape != (batch, t, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f"fused_decode output {tuple(out.shape)} not finite or misshapen")
+    err = (out - ref).abs().max().item()
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"fused_decode disagrees with its plain version (B={batch}, L={layers}, C={ctx_dim}): "
+                             f"{err:.3e}")
+    note_err("fused_decode", err)
     return err
 
 
@@ -718,6 +815,22 @@ def check_all_kernels(dev):
     print(f"fused_ar_decode shared tier vs plain, hidden 128, L=2, K=4, G=3 groups (1 row, 37, the rest; gid "
           f"unsorted; one group with every peer masked, equal to the peerless rollout; without δv also against "
           f"the per-row kernel on gathered copies): max_abs_err {json.dumps(errs)} (tolerance {TF_TOL})", flush=True)
+    errs = {}
+    for b, t, k, pool, w in ((16384, 30, 0, "none", 0), (4099, 30, 4, "none", 0), (4099, 30, 4, "mean", 0),
+                             (4099, 30, 4, "none", 2), (2053, 100, 4, "none", 8)):
+        errs[f"B={b} {t}+{t} K={k} pool={pool} window={w}"] = check_tf_bf16(dev, b, t, k, pool, w, seed=b + t + w)
+    for b, t, pool, w in ((4099, 30, "none", 2), (4099, 30, "mean", 0), (2053, 100, "none", 8)):
+        errs[f"shared B={b} {t}+{t} pool={pool} window={w} dv"] = check_tf_shared_bf16(dev, b, t, pool, w, seed=t + w)
+    print(f"bf16 tiers of fused_encode_tokens and fused_ar_decode vs their bf16 plain versions (tolerance "
+          f"{BF16_TOL}) and vs f32 plain (tolerance {BF16_F32_TOL}), hidden 128, L=2; the encoder at T <= 64; the "
+          f"shared tier over G=3 groups with δv: {json.dumps(errs)}", flush=True)
+    errs = {f"B={b} D_in={d}": check_cell(dev, b, d, seed=b + d) for b in (16384, 16383) for d in (3, 128)}
+    print(f"fused_lstm_cell vs lstm_cell, hidden 128: max_abs_err {json.dumps(errs)} (tolerance {CELL_TOL})",
+          flush=True)
+    errs = {f"B=16383 L={l} C={c}": check_decode(dev, 16383, l, c, seed=l + c)
+            for l in (1, 2) for c in (0, 128)}
+    print(f"fused_decode vs plain, hidden 128, 30 steps: max_abs_err {json.dumps(errs)} (tolerance {KERNEL_TOL})",
+          flush=True)
     errs = {f"B={b} T={t} L={l}": check_encode_train(dev, b, t, l, seed=i, repeat=i == 0)
             for i, (b, t, l) in enumerate(((TRAIN_B, 30, 2), (4099, 30, 2), (4099, 13, 2), (1001, 64, 1)))}
     print(f"fused_encode_train kernels vs plain, hidden 128 (forward and stash vs plain {TF_TOL}; every gradient "
@@ -728,13 +841,13 @@ def check_all_kernels(dev):
 # --------------------------------------------------------------- phase 4: seq2seq-tf-30 serving
 
 
-def serve_batched(cfg, fam, dev, params, requests, bulk):
+def serve_batched(cfg, fam, dev, params, requests, bulk, impl="fused", max_batch=1024):
     """Concurrent single requests ({"past", extras}) and one bulk request
-    through a DynamicBatcher in front of the fused serve program → (answers
-    in row order, the batcher's stats, the serve program)."""
-    serve_fn = serving.make_serve_fn(params, cfg, fam, device=dev, impl="fused")
+    through a DynamicBatcher in front of the serve program (``impl``) →
+    (answers in row order, the batcher's stats, the serve program)."""
+    serve_fn = serving.make_serve_fn(params, cfg, fam, device=dev, impl=impl)
     bat = serving.DynamicBatcher(serve_fn, h_in=cfg.model.h_in, extra_specs=serving.extra_specs_for(cfg),
-                                 required=serving.required_extras_for(cfg), max_batch=1024,
+                                 required=serving.required_extras_for(cfg), max_batch=max_batch,
                                  max_wait_ms=5.0)
     try:
         with ThreadPoolExecutor(max_workers=64) as pool:
@@ -796,15 +909,34 @@ def serve_bench(preset, batches, smi):
     print(f"serve-bench {preset} (traj/s, with tile mask, CUDA events, {smi}): {json.dumps(out)}", flush=True)
 
 
-def serve_call(cfg, params, dev, batch):
+def serve_call(cfg, params, dev, batch, tier=None):
     """One serve-bench call (normalize, kernels, denormalize, tile mask) on
     random unit-vector pasts and peer futures, as ``cli.serve_bench`` draws
-    them."""
+    them; with ``tier``, the transformer's serving in that compute dtype."""
     m, rng = cfg.model, np.random.default_rng(0)
     x = {"past": unit_rows(rng, dev, (batch, m.h_in)),
          "other_future": unit_rows(rng, dev, (batch, cfg.n_other_users, m.h_out))}
-    serve = infer.make_predict_fn(params, cfg, device=dev, with_tiles=True, impl="fused")
-    return lambda: serve(x)
+    if tier is None:
+        serve = infer.make_predict_fn(params, cfg, device=dev, with_tiles=True, impl="fused")
+        return lambda: serve(x)
+    fam = tier_family(tier)
+
+    @torch.inference_mode()
+    def call():
+        xyz = infer.predict_xyz(params, cfg, fam, x, impl="fused")
+        return xyz, infer.tiles_for_fov(xyz)
+    return call
+
+
+def tier_family(tier):
+    """The transformer family with ``serve_fused``'s compute dtype pinned to
+    ``tier``: the serving entry points (``make_serve_fn``,
+    ``make_grouped_serve_fn``, ``predict_xyz``) call the family's
+    ``serve_fused`` with no dtype, which resolves by device (bf16 on the
+    card)."""
+    fam = types.SimpleNamespace(**{k: getattr(transformer, k) for k in ("init", "apply", "batch_extras")})
+    fam.serve_fused = functools.partial(transformer.serve_fused, compute_dtype=tier)
+    return fam
 
 
 def serve_flop(batch, t_in, t_out, enc_ins, dec_ins, hidden, d):
@@ -841,6 +973,149 @@ def time_serve_kernel(name, dev, params, cfg, batch, iters, ctx_dim, smi, keep=T
         record(name, ms, flop, reads, [out])
     print(f"{name} alone (B={batch}, L={m.layers}, C={ctx_dim}; ms, CUDA events, {smi}): {json.dumps(ms)}; "
           f"bound {b_ms:.3f} ms by {b_by}; max_abs_err vs plain {err:.3e} (tolerance {KERNEL_TOL})", flush=True)
+
+
+# --------------------------------------------------------------- phase 4b: the cell and decode kernels
+
+
+def cell_cfg():
+    """seq2seq-tf-30 with the JAX model field cell="pallas": the step loops on
+    the one-step cell kernel."""
+    return get_preset(PRESET, model_cell="pallas")
+
+
+def drive_cell_serving(dev, params_np, params, batch):
+    """Path (a): cell="pallas" served by make_serve_fn(impl="plain") behind a
+    DynamicBatcher (max_batch = ``batch``): 64 single requests and one bulk
+    request of the rest; every answer against the cell="xla" plain path on
+    the card and the numpy oracle (unit xyz) → the path's launches."""
+    cfg, xla = cell_cfg(), get_preset(PRESET)
+    fam = get_family(cfg.model_family)
+    rng = np.random.default_rng(9)
+    pasts = unit_pasts(rng, batch, cfg.model.h_in)
+    (got, stats, _), launches = drive(S2S_CELL, lambda: serve_batched(
+        cfg, fam, dev, params, [{"past": p} for p in pasts[:64]], {"past": pasts[64:]}, impl="plain",
+        max_batch=batch))
+    plain_fn = serving.make_serve_fn(params, xla, fam, device=dev, impl="plain")
+    plain = plain_fn.unpack(plain_fn({"past": pasts}).cpu().numpy())
+    d_plain = float(np.abs(to_xyz(got) - to_xyz(plain)).max())
+    d_oracle = float(np.abs(to_xyz(got) - oracle.oracle_predict(params_np, cfg.model, pasts)).max())
+    per_call = launches["fused_lstm_cell"] / stats["batches"]
+    print(f"{S2S_CELL}: 64 single + 1 bulk ({batch - 64} rows) requests in {stats['batches']} batches, "
+          f"{per_call:.1f} fused_lstm_cell launches a call (30 + 30 steps, 1 layer: 60); max |xyz - cell=xla plain "
+          f"path| {d_plain:.3e}, max |xyz - numpy oracle| {d_oracle:.3e} (tolerance {ORACLE_TOL})", flush=True)
+    if not (d_plain <= ORACLE_TOL and d_oracle <= ORACLE_TOL and per_call == 60):
+        raise AssertionError("the cell=pallas serving path disagrees with the plain path or the oracle")
+    return launches
+
+
+def decode_fused_path(params, cfg):
+    """Path (b), as scripts/tpu_sweep.py serves it: normalize →
+    seq2seq.decode_fused → denormalize, raw xyz pasts → xyz."""
+    @torch.inference_mode()
+    def call(past):
+        past_n, _, anchor = windows.normalize_window(past)
+        return windows.denormalize_window(seq2seq.decode_fused(params, cfg.model, past_n.contiguous()), anchor,
+                                          to_sphere=True)
+    return call
+
+
+def drive_decode_fused(dev, params_np, params):
+    """Path (b) at B = 16384 (the main path, launches counted) and 262,144:
+    decode_fused on the cell kernel against serve_fused (the fused_serve
+    kernel), the cell="xla" plain path, and at 16384 the numpy oracle."""
+    cfg, xla = cell_cfg(), get_preset(PRESET)
+    path = decode_fused_path(params, cfg)
+    rng = np.random.default_rng(10)
+    out = {}
+    launches = None
+    for batch in (16384, 262144):
+        past = unit_rows(rng, dev, (batch, cfg.model.h_in))
+        if launches is None:
+            got, launches = drive(S2S_DECODE, lambda: path(past), also=["fused_lstm_cell"])
+        else:
+            got = path(past)
+        fused = infer.make_predict_fn(params, xla, device=dev, impl="fused")(past)
+        plain = infer.make_predict_fn(params, xla, device=dev, impl="plain")(past)
+        gaps = {"vs_serve_fused": (got - fused).abs().max().item(), "vs_xla_plain": (got - plain).abs().max().item()}
+        if batch == 16384:
+            gaps["vs_oracle"] = float(np.abs(got.cpu().numpy() - oracle.oracle_predict(
+                params_np, cfg.model, past.cpu().numpy())).max())
+        out[f"B={batch}"] = gaps
+    print(f"{S2S_DECODE}: normalize → decode_fused (cell=pallas encoder, one fused_decode) → denormalize, max |xyz "
+          f"gap| {json.dumps(out)} (tolerance {ORACLE_TOL}); launches at B=16384 {json.dumps(launches)} "
+          f"(30 fused_lstm_cell, 1 fused_decode)", flush=True)
+    if not all(v <= ORACLE_TOL for g in out.values() for v in g.values()):
+        raise AssertionError("decode_fused disagrees with serve_fused, the plain path or the oracle")
+    if launches != {"fused_decode": 1, "fused_lstm_cell": 30}:
+        raise AssertionError(f"decode_fused launched {launches}, not 30 cells and 1 decode")
+    return launches
+
+
+def time_cell_paths(dev, params, smi):
+    """Both paths against the cell="xla" plain path and fused_serve, serve
+    calls on device tensors in turns at B = 16384 and 262,144; then the cell
+    kernel alone against lstm_cell and torch.lstm_cell (W split into w_ih
+    and w_hh: the library yardstick, which the port never calls) at the main
+    path's shapes, and fused_decode alone against its plain version."""
+    cfg, xla = cell_cfg(), get_preset(PRESET)
+    rng = np.random.default_rng(11)
+    for batch, iters in ((16384, {"cell=pallas plain": 3, "cell=xla plain": 3, "decode_fused": 5,
+                                  "serve_fused": 5}),
+                         (262144, {"cell=pallas plain": 1, "cell=xla plain": 1, "decode_fused": 2,
+                                   "serve_fused": 2})):
+        past = unit_rows(rng, dev, (batch, cfg.model.h_in))
+        fns = {"cell=pallas plain": infer.make_predict_fn(params, cfg, device=dev, impl="plain"),
+               "cell=xla plain": infer.make_predict_fn(params, xla, device=dev, impl="plain"),
+               "decode_fused": decode_fused_path(params, cfg),
+               "serve_fused": infer.make_predict_fn(params, xla, device=dev, impl="fused")}
+        ms = in_turns({k: (lambda f=f: f(past)) for k, f in fns.items()}, iters)
+        print(f"{S2S_CELL} / {S2S_DECODE}: serve call at B={batch} (ms, CUDA events, {smi}): {json.dumps(ms)}, "
+              f"traj/s {json.dumps({k: batch * 1e3 / v for k, v in ms.items()})}", flush=True)
+    for d_in, keep in ((3, True), (128, False)):
+        batch = 16384
+        (p,) = stack(rng, dev, d_in, 1)
+        x, h, c = randn(rng, dev, (batch, d_in)), randn(rng, dev, (batch, 128), 0.5), randn(rng, dev, (batch, 128), 0.5)
+        w_ih, w_hh = p.w[:d_in].t().contiguous(), p.w[d_in:].t().contiguous()
+        b_hh = torch.zeros_like(p.b)
+        lib = torch.lstm_cell(x, [h, c], w_ih, w_hh, p.b, b_hh)
+        got = fused_lstm.fused_lstm_cell(p, x, (h, c))
+        err = max((g - w).abs().max().item() for g, w in zip(got, lstm_cell(p, x, (h, c))))
+        lib_err = max((g - w).abs().max().item() for g, w in zip(got, lib))
+        if not err <= CELL_TOL:
+            raise AssertionError(f"fused_lstm_cell at B={batch}, D_in={d_in} disagrees with lstm_cell: {err:.3e}")
+        note_err("fused_lstm_cell", err)
+        ms = in_turns({"plain": lambda: lstm_cell(p, x, (h, c)), "kernel": lambda: fused_lstm.fused_lstm_cell(p, x, (h, c)),
+                       "library": lambda: torch.lstm_cell(x, [h, c], w_ih, w_hh, p.b, b_hh)},
+                      {"plain": 20, "kernel": 20, "library": 20})
+        flop = stack_flop(batch, 1, [d_in], 128)
+        reads, writes = [x, h, c, p.w, p.b], list(got)
+        b_ms, b_by = bound(flop, reads, writes)
+        if keep:
+            record("fused_lstm_cell", ms, flop, reads, writes)
+        print(f"fused_lstm_cell alone (B={batch}, D_in={d_in}, H=128; ms, CUDA events, {smi}): {json.dumps(ms)}; "
+              f"bound {b_ms:.4f} ms by {b_by}; max_abs_err vs plain {err:.3e} (tolerance {CELL_TOL}), vs "
+              f"torch.lstm_cell {lib_err:.3e}", flush=True)
+    batch, t_out = 262144, 30
+    dec = stack(rng, dev, 3, 1)
+    pw, pb = randn(rng, dev, (128, 3), 0.1), randn(rng, dev, (3,), 0.1)
+    h0, c0 = randn(rng, dev, (1, batch, 128), 0.3), randn(rng, dev, (1, batch, 128), 0.3)
+    y0 = randn(rng, dev, (batch, 3), 0.1)
+    args = (dec, pw, pb, h0, c0, y0, t_out)
+    out = fused_lstm.fused_decode(*args)
+    err = (out - fused_lstm.fused_decode_reference(*args)).abs().max().item()
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"fused_decode at B={batch} disagrees with its plain version: {err:.3e}")
+    note_err("fused_decode", err)
+    ms = in_turns({"plain": lambda: fused_lstm.fused_decode_reference(*args),
+                   "kernel": lambda: fused_lstm.fused_decode(*args)}, {"plain": 1, "kernel": 3})
+    flop = stack_flop(batch, t_out, [3], 128) + 2 * batch * t_out * 128 * 3
+    reads = [h0, c0, y0, pw, pb] + [t for p in dec for t in p]
+    record("fused_decode", ms, flop, reads, [out])
+    t = TIMES["fused_decode"]
+    print(f"fused_decode alone (B={batch}, L=1, {t_out} steps; ms, CUDA events, {smi}): {json.dumps(ms)}; bound "
+          f"{t['bound_ms']:.3f} ms by {t['bound_by']}; max_abs_err vs plain {err:.3e} (tolerance {KERNEL_TOL}); "
+          f"library: none (AR decode with feedback)", flush=True)
 
 
 # --------------------------------------------------------------- training paths
@@ -1769,6 +2044,20 @@ def check_tf_decode(dev, batch, k, pool, window, seed, t=30):
     return err
 
 
+def shared_groups(dev, params, m, batch, t, rng):
+    """G = 3 peer groups of 4 unit-vector tracks (group 1 with two peers
+    masked, group 2 with all) and an unsorted gid giving them 1 row, 37 rows
+    and the rest → (group memory, its validity, gid)."""
+    gmask = torch.ones((3, 4), device=dev)
+    gmask[1, 2:] = 0.0
+    gmask[2] = 0.0
+    gmem, gvalid = (x.contiguous() for x in transformer._peer_tokens(params, m, unit_rows(rng, dev, (3, 4, t)),
+                                                                     gmask))
+    gid = np.full(batch, 2)
+    gid[0], gid[1:38] = 0, 1
+    return gmem, gvalid, torch.tensor(rng.permutation(gid), device=dev)
+
+
 def check_tf_shared(dev, batch, t, pool, window, with_dv, seed):
     """The shared tier against the plain shared decode (each row's group's
     K/V, δv subtracted) → max abs error. G = 3 groups of 1 row, 37 rows and
@@ -1777,14 +2066,7 @@ def check_tf_shared(dev, batch, t, pool, window, with_dv, seed):
     the per-row kernel on gathered copies."""
     m, params, _, enc, y0, *_ = tf_case(dev, batch, t, t, 2, 0, pool, window, seed)
     rng = np.random.default_rng(seed)
-    gmask = torch.ones((3, 4), device=dev)
-    gmask[1, 2:] = 0.0
-    gmask[2] = 0.0
-    gmem, gvalid = (x.contiguous() for x in transformer._peer_tokens(params, m, unit_rows(rng, dev, (3, 4, t)),
-                                                                     gmask))
-    gid = np.full(batch, 2)
-    gid[0], gid[1:38] = 0, 1
-    gid = torch.tensor(rng.permutation(gid), device=dev)
+    gmem, gvalid, gid = shared_groups(dev, params, m, batch, t, rng)
     dv = randn(rng, dev, (batch, 2, m.hidden), 0.1) if with_dv else None
     out = transformer_decode.fused_ar_decode_shared(params, m, enc, y0, peer_gmem=gmem, peer_gvalid=gvalid,
                                                     peer_gid=gid, peer_dv=dv)
@@ -1804,6 +2086,59 @@ def check_tf_shared(dev, batch, t, pool, window, with_dv, seed):
                              f"per-row kernel {d_rows:.3e}")
     note_err("fused_ar_decode_shared", err)
     return err
+
+
+def check_tf_bf16(dev, batch, t, k, pool, window, seed):
+    """The bf16 tiers against their bf16 plain versions (BF16_TOL) and the
+    f32 plain versions (BF16_F32_TOL): the encoder where it runs a kernel
+    (T <= 64), the per-row decode on the f32 plain encoder memory; with
+    peers, the row with no valid peer against the peerless bf16 rollout →
+    the errors."""
+    bf16 = torch.bfloat16
+    m, params, past_n, enc, y0, pm, pv = tf_case(dev, batch, t, t, 2, k, pool, window, seed)
+    errs = {}
+    if transformer_encode.encode_kernel_fits(t):
+        enc_k = transformer_encode.fused_encode_tokens(params, m, past_n, compute_dtype=bf16)
+        torch.cuda.synchronize()
+        errs["encode"] = (enc_k - transformer._encode(params, m, past_n, bf16)).abs().max().item()
+        errs["encode_vs_f32"] = (enc_k - enc).abs().max().item()
+        note_err("fused_encode_tokens_bf16", errs["encode"])
+    out = transformer_decode.fused_ar_decode(params, m, enc, y0, peer_mem=pm, peer_valid=pv, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    errs["decode"] = (out - transformer._ar_decode(params, m, enc, pm, pv, y0, compute_dtype=bf16)).abs().max().item()
+    errs["decode_vs_f32"] = (out - transformer._ar_decode(params, m, enc, pm, pv, y0)).abs().max().item()
+    if k:
+        alone = transformer_decode.fused_ar_decode(params, m, enc, y0, compute_dtype=bf16)
+        errs["no_peer_row"] = (out[0] - alone[0]).abs().max().item()
+    note_err("fused_ar_decode_bf16", errs["decode"])
+    if not torch.isfinite(out).all() or not all(v <= (BF16_F32_TOL if key.endswith("f32") else BF16_TOL)
+                                                 for key, v in errs.items()):
+        raise AssertionError(f"a bf16 tier disagrees (B={batch}, {t}+{t}, K={k}, pool={pool}, window={window}): "
+                             f"{json.dumps(errs)}")
+    return errs
+
+
+def check_tf_shared_bf16(dev, batch, t, pool, window, seed):
+    """The shared tier's bf16 instance with δv, G = 3 groups as in
+    check_tf_shared, against the plain shared decode in bf16 (BF16_TOL) and
+    in f32 (BF16_F32_TOL) → the errors."""
+    bf16 = torch.bfloat16
+    m, params, _, enc, y0, *_ = tf_case(dev, batch, t, t, 2, 0, pool, window, seed)
+    rng = np.random.default_rng(seed)
+    gmem, gvalid, gid = shared_groups(dev, params, m, batch, t, rng)
+    dv = randn(rng, dev, (batch, 2, m.hidden), 0.1)
+    out = transformer_decode.fused_ar_decode_shared(params, m, enc, y0, peer_gmem=gmem, peer_gvalid=gvalid,
+                                                    peer_gid=gid, peer_dv=dv, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    errs = {}
+    for tier, key in ((bf16, "decode"), (torch.float32, "decode_vs_f32")):
+        ref = transformer._ar_decode(params, m, enc, gmem, gvalid, y0, peer_gid=gid, peer_dv=dv, compute_dtype=tier)
+        errs[key] = (out - ref).abs().max().item()
+    note_err("fused_ar_decode_bf16", errs["decode"])
+    if not torch.isfinite(out).all() or not (errs["decode"] <= BF16_TOL and errs["decode_vs_f32"] <= BF16_F32_TOL):
+        raise AssertionError(f"the bf16 shared tier disagrees (B={batch}, {t}+{t}, pool={pool}, window={window}): "
+                             f"{json.dumps(errs)}")
+    return errs
 
 
 def check_encode_train(dev, batch, t, layers, seed, repeat=False):
@@ -1843,14 +2178,18 @@ def check_encode_train(dev, batch, t, layers, seed, repeat=False):
     return {"forward": err_f, "grad_abs": err_b, "grad_rel": rel_b, "reduction": err_dw, "repeat_bit_equal": same}
 
 
-def drive_tf_serving(cfg, dev, params_np, n_single, n_bulk, path=TF_SERVE, also=()):
+def drive_tf_serving(cfg, dev, params_np, n_single, n_bulk, path=TF_SERVE, also=(), tier=torch.bfloat16):
     """Single requests that all carry ``other_future``: K peers, two (the
     batcher pads and masks the rest), or K with an explicit all-zero mask
     (no valid peer); one bulk request with an explicit random mask; through
     the batcher in front of the encoder (fused_encode_tokens where T <= 64,
-    else the plain _encode) and fused_ar_decode. Every answer against the
-    port's plain path on the CPU."""
+    else the plain _encode) and fused_ar_decode. ``tier``: bf16, the serving
+    default on the card (the family as it is), or an explicit f32. Every
+    answer against the port's plain path on the CPU in the same tier: the
+    bf16 plain versions (serve_fused in bf16 on CPU tensors) within
+    BF16_ANSWER_TOL, the f32 plain path (apply) within ORACLE_TOL."""
     params = params_from_numpy(params_np, dev)
+    fam = transformer if tier == torch.bfloat16 else tier_family(tier)
     m, k = cfg.model, cfg.n_other_users
     rng = np.random.default_rng(15)
     pasts = unit_pasts(rng, n_single + n_bulk, m.h_in)
@@ -1870,15 +2209,22 @@ def drive_tf_serving(cfg, dev, params_np, n_single, n_bulk, path=TF_SERVE, also=
         requests.append(r)
     mask[n_single:] = (rng.random((n_bulk, k)) < 0.6).astype(np.float32)
     bulk = {"past": pasts[n_single:], "other_future": others[n_single:], "other_mask": mask[n_single:]}
-    (got, stats, _), launches = drive(path, lambda: serve_batched(cfg, transformer, dev, params, requests, bulk),
-                                      also)
+    (got, stats, _), launches = drive(path, lambda: serve_batched(cfg, fam, dev, params, requests, bulk), also)
     batch = {"past": pasts, "other_future": others, "other_mask": mask}
-    plain = infer.make_predict_fn(params_from_numpy(params_np, "cpu"), cfg, device="cpu", impl="plain")(batch)
+    cpu_params = params_from_numpy(params_np, "cpu")
+    if tier == torch.bfloat16:
+        with torch.inference_mode():
+            plain = infer.predict_xyz(cpu_params, cfg, tier_family(tier),
+                                      {key: torch.as_tensor(v) for key, v in batch.items()}, impl="fused")
+        tol = BF16_ANSWER_TOL
+    else:
+        plain = infer.make_predict_fn(cpu_params, cfg, device="cpu", impl="plain")(batch)
+        tol = ORACLE_TOL
     d_plain = float(np.abs(to_xyz(got) - plain.numpy()).max())
     print(f"{path}: {n_single} single requests with other_future (K={k}, 2, and K all masked) + 1 bulk "
-          f"({n_bulk} rows, explicit mask) in {stats['batches']} batches; max |xyz - CPU plain path| "
-          f"{d_plain:.3e} (tolerance {ORACLE_TOL})", flush=True)
-    if not d_plain <= ORACLE_TOL:
+          f"({n_bulk} rows, explicit mask) in {stats['batches']} batches, serving in {str(tier)[6:]}; max |xyz - "
+          f"CPU plain path in {str(tier)[6:]}| {d_plain:.3e} (tolerance {tol})", flush=True)
+    if not d_plain <= tol:
         raise AssertionError(f"{cfg.name} answers disagree with the CPU plain path")
     return params, launches
 
@@ -1898,14 +2244,22 @@ def tf_work(m, batch, kt, attended):
     return enc, dec
 
 
+def stored(tensors, tier):
+    """The tensors as the tier stores them: bf16 matrices (the 2-D leaves) in
+    the bf16 tier, for its byte count."""
+    return [t.to(tier) if t.dim() == 2 else t for t in tensors]
+
+
 def time_tf_kernels(dev, params, cfg, batch, smi, keep):
-    """Both transformer kernels alone at a serving batch with K peers,
-    checked first, against their plain versions (the encoder also against
-    the nn.TransformerEncoder yardstick), in turns; ``keep``: their numbers
-    go to the kernels line. The decode has no library call (AR decode with
-    feedback). Bytes: every input read once (past, weights; the decode's
-    encoder memory, peer tokens and validity, y0), every output written
-    once; FLOP: tf_work, the decode's peer K/V projections included."""
+    """Both transformer kernels alone, in both tiers, at a serving batch with
+    K peers, checked first, against their plain versions in the same tier
+    (the encoder also against the nn.TransformerEncoder yardstick, in the
+    tier's type), in turns; ``keep``: their numbers go to the kernels line.
+    The decode has no library call (AR decode with feedback). Bytes: every
+    input read once (past, weights in the tier's type; the decode's encoder
+    memory, peer tokens and validity, y0), every output written once; FLOP:
+    tf_work, the decode's peer K/V projections included, over the f32 FMA
+    peak or, in bf16, the bf16 tensor-core peak."""
     m, k = cfg.model, cfg.n_other_users
     rng = np.random.default_rng(16)
     past_n, _, anchor = windows.normalize_window(unit_rows(rng, dev, (batch, m.h_in)))
@@ -1913,42 +2267,53 @@ def time_tf_kernels(dev, params, cfg, batch, smi, keep):
     others = unit_rows(rng, dev, (batch, k, m.h_out)) - anchor[:, None]  # as batch_extras anchors them
     net = encoder_library(params, dev)
     emb = past_n @ params["in_proj"] + transformer._pos_enc(m.h_in, m.hidden, device=dev)
-    with torch.inference_mode():
-        enc = transformer_encode.fused_encode_tokens(params, m, past_n)
-        ref = transformer._encode(params, m, past_n)
-        err_e = (enc - ref).abs().max().item()
-        lib_err = (net(emb) - ref).abs().max().item()
-        if not err_e <= TF_TOL:
-            raise AssertionError(f"fused_encode_tokens at B={batch} disagrees with its plain version: {err_e:.3e}")
-        note_err("fused_encode_tokens", err_e)
-        ms_e = in_turns({"plain": lambda: transformer._encode(params, m, past_n),
-                         "kernel": lambda: transformer_encode.fused_encode_tokens(params, m, past_n),
-                         "library": lambda: net(emb)}, {"plain": 2, "kernel": 3, "library": 3})
-        pm, pv = (x.contiguous() for x in transformer._peer_tokens(params, m, others, None))
-        y0 = past_n[:, -1].contiguous()
-        out = transformer_decode.fused_ar_decode(params, m, ref, y0, peer_mem=pm, peer_valid=pv)
-        err_d = (out - transformer._ar_decode(params, m, ref, pm, pv, y0)).abs().max().item()
-        if not err_d <= TF_TOL:
-            raise AssertionError(f"fused_ar_decode at B={batch} disagrees with its plain version: {err_d:.3e}")
-        note_err("fused_ar_decode", err_d)
-        ms_d = in_turns({"plain": lambda: transformer._ar_decode(params, m, ref, pm, pv, y0),
-                         "kernel": lambda: transformer_decode.fused_ar_decode(params, m, ref, y0, peer_mem=pm,
-                                                                            peer_valid=pv)},
-                        {"plain": 1, "kernel": 2})
+    pm, pv = (x.contiguous() for x in transformer._peer_tokens(params, m, others, None))
+    y0 = past_n[:, -1].contiguous()
     enc_flop, dec_flop = tf_work(m, batch, pm.shape[1], int(pv.sum()) * m.h_out)
-    weights = tree_leaves(params)
-    io = {"fused_encode_tokens": (enc_flop, [past_n, params["in_proj"]] + tree_leaves(params["enc"]), [enc]),
-          "fused_ar_decode": (dec_flop, [ref, y0, pm, pv] + weights, [out])}
-    for name, ms in (("fused_encode_tokens", ms_e), ("fused_ar_decode", ms_d)):
-        b_ms, b_by = bound(io[name][0], *io[name][1:])
-        if keep:
-            record(name, ms, *io[name])
-        print(f"{name} alone (B={batch}, L={m.layers}, {m.h_in}+{m.h_out} steps, K={k}: {pm.shape[1]} peer "
-              f"tokens; ms, CUDA events, {smi}): {json.dumps(ms)}; bound {b_ms:.3f} ms by {b_by} "
-              f"({io[name][0] / ms['kernel'] / 1e9:.2f} TFLOP/s); max_abs_err vs plain "
-              f"{err_e if name == 'fused_encode_tokens' else err_d:.3e} (tolerance {TF_TOL})"
-              + (f"; library nn.TransformerEncoder vs plain {lib_err:.3e}" if name == "fused_encode_tokens"
-                 else "; library: none (AR decode with feedback)"), flush=True)
+    for tier, sfx, tol, peak in ((torch.float32, "", TF_TOL, F32_FLOPS), (torch.bfloat16, "_bf16", BF16_TOL,
+                                                                          BF16_FLOPS)):
+        lib_net, lib_emb = (net, emb) if tier == torch.float32 else (encoder_library(params, dev).to(tier),
+                                                                    emb.to(tier))
+        with torch.inference_mode():
+            enc = transformer_encode.fused_encode_tokens(params, m, past_n, compute_dtype=tier)
+            ref = transformer._encode(params, m, past_n, tier)
+            err_e = (enc - ref).abs().max().item()
+            lib_err = (lib_net(lib_emb).float() - ref).abs().max().item()
+            if not err_e <= tol:
+                raise AssertionError(f"fused_encode_tokens{sfx} at B={batch} disagrees with its plain version: "
+                                     f"{err_e:.3e}")
+            note_err(f"fused_encode_tokens{sfx}", err_e)
+            ms_e = in_turns({"plain": lambda: transformer._encode(params, m, past_n, tier),
+                             "kernel": lambda: transformer_encode.fused_encode_tokens(params, m, past_n,
+                                                                                      compute_dtype=tier),
+                             "library": lambda: lib_net(lib_emb)}, {"plain": 2, "kernel": 3, "library": 3})
+            # the decode on the f32 plain encoder memory, as check_tf_bf16
+            mem = transformer._encode(params, m, past_n)
+            out = transformer_decode.fused_ar_decode(params, m, mem, y0, peer_mem=pm, peer_valid=pv,
+                                                     compute_dtype=tier)
+            err_d = (out - transformer._ar_decode(params, m, mem, pm, pv, y0, compute_dtype=tier)).abs().max().item()
+            if not err_d <= tol:
+                raise AssertionError(f"fused_ar_decode{sfx} at B={batch} disagrees with its plain version: "
+                                     f"{err_d:.3e}")
+            note_err(f"fused_ar_decode{sfx}", err_d)
+            ms_d = in_turns({"plain": lambda: transformer._ar_decode(params, m, mem, pm, pv, y0, compute_dtype=tier),
+                             "kernel": lambda: transformer_decode.fused_ar_decode(params, m, mem, y0, peer_mem=pm,
+                                                                                peer_valid=pv, compute_dtype=tier)},
+                            {"plain": 1, "kernel": 2})
+        weights = stored(tree_leaves(params), tier)
+        io = {f"fused_encode_tokens{sfx}": (enc_flop, [past_n] + stored(
+                  [params["in_proj"]] + tree_leaves(params["enc"]), tier), [enc]),
+              f"fused_ar_decode{sfx}": (dec_flop, [mem, y0, pm, pv] + weights, [out])}
+        for name, ms, err in ((f"fused_encode_tokens{sfx}", ms_e, err_e), (f"fused_ar_decode{sfx}", ms_d, err_d)):
+            b_ms, b_by = bound(io[name][0], *io[name][1:], peak)
+            if keep:
+                record(name, ms, *io[name], peak)
+            print(f"{name} alone (B={batch}, L={m.layers}, {m.h_in}+{m.h_out} steps, K={k}: {pm.shape[1]} peer "
+                  f"tokens; ms, CUDA events, {smi}): {json.dumps(ms)}; bound {b_ms:.3f} ms by {b_by} "
+                  f"({io[name][0] / ms['kernel'] / 1e9:.2f} TFLOP/s); max_abs_err vs plain {err:.3e} (tolerance "
+                  f"{tol})" + (f"; library nn.TransformerEncoder ({str(tier)[6:]}) vs plain {lib_err:.3e}"
+                               if name.startswith("fused_encode") else "; library: none (AR decode with feedback)"),
+                  flush=True)
 
 
 def tf_grad_check(cfg, state, train_d):
@@ -2107,37 +2472,45 @@ def grouped_inputs(cfg, dev, rows, n_videos, seed):
     return unit_pasts(rng, rows, m.h_in), keys, sets
 
 
-def check_grouped_tf(cfg, dev, params, rows, n_videos, label):
+def grouped_tol(tier):
+    return ANGLE_TOL if tier == torch.float32 else GROUPED_BF16_TOL
+
+
+def check_grouped_tf(cfg, dev, params, rows, n_videos, label, tier=torch.bfloat16):
     """The grouped gateway of the transformer (``make_grouped_serve_fn``,
     the shared tier with δv, through ``grouped_predict``) against per-row
     serving of the same windows (``make_serve_fn``, each row's peers
-    anchored to it): yaw and pitch within ANGLE_TOL, prefetch tiles equal on
-    more than TILES_EQUAL; the packed batch is the request count (no group
-    padded)."""
+    anchored to it), both in ``tier`` (bf16, the default on the card, or
+    f32): pitch and the great-circle angle within ANGLE_TOL in f32,
+    GROUPED_BF16_TOL in bf16, prefetch tiles equal on more than TILES_EQUAL;
+    the packed batch is the request count (no group padded)."""
+    fam = transformer if tier == torch.bfloat16 else tier_family(tier)
+    tol = grouped_tol(tier)
     pasts, keys, sets = grouped_inputs(cfg, dev, rows, n_videos, seed=rows)
-    fn = serving.make_grouped_serve_fn(params, cfg, transformer, device=dev, packed=True)
+    fn = serving.make_grouped_serve_fn(params, cfg, fam, device=dev, packed=True)
     packed = len(serving.group_pack(keys, fn.tile_b)[0])
     got = serving.grouped_predict(fn, pasts, keys, sets)
-    per_row = serving.make_serve_fn(params, cfg, transformer, device=dev, impl="fused")
+    per_row = serving.make_serve_fn(params, cfg, fam, device=dev, impl="fused")
     of = np.stack([sets[v] for v in keys])
     direct = per_row({"past": pasts, "other_future": of,
                       "other_mask": (np.abs(of).max(axis=(2, 3)) > 0).astype(np.float32)}).cpu().numpy()
     d_yaw, d_pitch, d_dir, tiles = direction_gaps(
         np.concatenate([got["yaw"], got["pitch"], got["prefetch"]], -1), direct, cfg.model.h_out)
-    print(f"{label}: grouped gateway, {rows} windows of {n_videos} videos (counts "
+    print(f"{label}: grouped gateway in {str(tier)[6:]}, {rows} windows of {n_videos} videos (counts "
           f"{np.bincount(keys, minlength=n_videos).tolist()}, keys unsorted, K={cfg.n_other_users} peers sent once "
           f"a video, one masked), packed batch {packed}: against per-row serving max |Δpitch| {d_pitch:.3e} and "
-          f"great-circle {d_dir:.3e} rad (tolerance {ANGLE_TOL}; |Δyaw| {d_yaw:.3e}), prefetch tiles equal "
+          f"great-circle {d_dir:.3e} rad (tolerance {tol}; |Δyaw| {d_yaw:.3e}), prefetch tiles equal "
           f"{tiles:.5f} (> {TILES_EQUAL})", flush=True)
-    if not (d_pitch <= ANGLE_TOL and d_dir <= ANGLE_TOL and tiles > TILES_EQUAL and packed == rows):
+    if not (d_pitch <= tol and d_dir <= tol and tiles > TILES_EQUAL and packed == rows):
         raise AssertionError("the grouped gateway differs from per-row serving")
 
 
 def time_grouped(cfg, dev, params, batch, n_videos, smi, label, profile=False):
     """One grouped serve call (the G peer sets on the card, the shared tier)
     against one per-row serve call of the same windows (each row's peers on
-    the card), both from device tensors, in turns; their answers compared
-    first. With ``profile``, a profile of each."""
+    the card), both from device tensors and in bf16 (the default), in turns;
+    their answers compared first (GROUPED_BF16_TOL). With ``profile``, a
+    profile of each."""
     rng = np.random.default_rng(batch)
     m, k = cfg.model, cfg.n_other_users
     past = unit_rows(rng, dev, (batch, m.h_in))
@@ -2150,7 +2523,7 @@ def time_grouped(cfg, dev, params, batch, n_videos, smi, label, profile=False):
     calls = {"per_row": lambda: per_row(rows), "grouped": lambda: grouped(past, gfut, gmask, gid)}
     d_yaw, d_pitch, d_dir, tiles = direction_gaps(calls["grouped"]().cpu().numpy(),
                                                   calls["per_row"]().cpu().numpy(), m.h_out)
-    if not (d_pitch <= ANGLE_TOL and d_dir <= ANGLE_TOL and tiles > TILES_EQUAL):
+    if not (d_pitch <= GROUPED_BF16_TOL and d_dir <= GROUPED_BF16_TOL and tiles > TILES_EQUAL):
         raise AssertionError(f"{label}: grouped serving at B={batch} differs from per-row: pitch {d_pitch:.3e}, "
                              f"direction {d_dir:.3e}, tiles {tiles}")
     ms = in_turns(calls, {"per_row": 1, "grouped": 1} if batch > 4096 else {"per_row": 2, "grouped": 3})
@@ -2275,6 +2648,31 @@ def time_encoder_t100(dev, params, cfg, smi):
           f"{json.dumps(out)}", flush=True)
 
 
+def ptxas_report(log):
+    """nvcc's -Xptxas -v report as "kernel: registers, spill stores/loads"
+    a kernel, the kernel named by its demangled-enough symbol."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            sym = ln.split("'")[1]
+            name = next((k for k in KERNEL_SYMBOLS if k in sym), sym[-40:])
+            name += "<bf16>" if "nv_bfloat16" in sym else "<true>" if "ILb1E" in sym else ""
+        elif "spill" in ln and name:
+            spills = ln.split("bytes stack frame,")[-1].replace(" bytes spill ", " ").strip()
+        elif "registers" in ln and name:
+            out.append(f"{name}: {ln.split('Used')[1].split(' registers')[0].strip()} regs, {spills}")
+            name = None
+    return "; ".join(out)
+
+
+KERNEL_SYMBOLS = ("fused_serve_kernel", "fused_decode_kernel", "lstm_cell_kernel", "peer_context_kernel",
+                  "fused_encode_kernel", "encode_tokens_kernel", "ar_decode_kernel", "encode_stash_kernel",
+                  "encode_reverse_kernel", "reduce_partials_kernel", "conv_resize_kernel", "lstm_dw_sum_kernel",
+                  "lstm_dw_partial_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel", "ss_fwd_kernel", "ss_bwd_kernel",
+                  "ss_dw_partial_kernel", "ss_dproj_kernel", "align_peer_fwd_kernel", "align_peer_bwd_kernel",
+                  "align_dw_partial_kernel", "align_peer_dw_kernel")
+
+
 # --------------------------------------------------------------- main
 
 
@@ -2299,8 +2697,7 @@ def main():
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         builds = dict(zip(sources, pool.map(_build.build, sources)))
     for name, b in builds.items():
-        regs = " ".join(ln.strip() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln)
-        print(f"build: {name}.cu by nvcc in {b.seconds:.2f} s ({b.path.name}) {regs}", flush=True)
+        print(f"build: {name}.cu by nvcc in {b.seconds:.2f} s ({b.path.name}) {ptxas_report(b.log)}", flush=True)
 
     phase("3 kernels vs plain")
     # 3. every kernel against its plain version at full width
@@ -2315,6 +2712,14 @@ def main():
     _, s2s_serve = drive(S2S_SERVE, lambda: drive_s2s_serving(cfg, fam, dev, params_np, params))
     serve_bench(PRESET, ((16384, 10), (262144, 3)), smi)
     time_serve_kernel("fused_serve", dev, params, cfg, 262144, 3, 0, smi)
+
+    phase("4b serve seq2seq-tf-30, cell=pallas and decode_fused")
+    # 4b. the same preset on the one-step cell kernel (the cell="pallas"
+    # plain path behind the batcher) and on the decode kernel (decode_fused)
+    s2s_cell = drive_cell_serving(dev, params_np, params, 16384)
+    s2s_decode = drive_decode_fused(dev, params_np, params)
+    time_cell_paths(dev, params, smi)
+    torch.cuda.empty_cache()
 
     phase("5 train seq2seq-tf-30")
     # 5. seq2seq-tf-30 training
@@ -2403,11 +2808,17 @@ def main():
 
     phase("13 serve transformer-30")
     # 13. transformer-30 serving: K = 4 per-row peers in every request, the
-    # encoder and decode kernels; serve-bench, a profile, the kernels alone
+    # encoder and decode kernels in bf16 (serve_fused's default on the card)
+    # and, with an explicit compute dtype, in f32; serve-bench (bf16), a
+    # profile of each tier, the kernels alone in both
     tfcfg = get_preset(TF_PRESET)
     tparams, tf_serve = drive_tf_serving(tfcfg, dev, cli.bench_params_np(tfcfg, 0), 48, 200)
+    _, tf_serve_f32 = drive_tf_serving(tfcfg, dev, cli.bench_params_np(tfcfg, 0), 24, 100, path=TF_SERVE_F32,
+                                       tier=torch.float32)
     serve_bench(TF_PRESET, ((16384, 3), (65536, 2)), smi)
-    profile_device(f"{TF_SERVE}: serve call at B=16384", serve_call(tfcfg, tparams, dev, 16384), 2, smi)
+    for tier in (torch.bfloat16, torch.float32):
+        profile_device(f"{TF_SERVE}: {str(tier)[6:]} serve call at B=16384",
+                       serve_call(tfcfg, tparams, dev, 16384, tier), 2, smi)
     time_tf_kernels(dev, tparams, tfcfg, 16384, smi, keep=True)
     torch.cuda.empty_cache()
 
@@ -2418,7 +2829,7 @@ def main():
     # serving kernels; the resume bit-equal
     ttcfg = get_preset(TF_PRESET, batch_size=TRAIN_B, steps=20, eval_every=10, ckpt_every=10)
     ttrained, ttrain_d, tf_train = drive_training(ttcfg, TF_TRAIN, dev, also=[
-        "fused_encode_tokens", "fused_ar_decode"], step_check=False, resume_tol=0.0)
+        "fused_encode_tokens_bf16", "fused_ar_decode_bf16"], step_check=False, resume_tol=0.0)
     tf_grad_check(ttcfg, ttrained, ttrain_d)
     time_tf_step(ttcfg, ttrained, ttrain_d, TF_TRAIN, smi)
     time_encode_train(dev, ttrained.params, ttcfg, TRAIN_B, smi)
@@ -2434,9 +2845,16 @@ def main():
     # too; profiles of a grouped and a per-row call
     t10cfg = get_preset(TF10_PRESET)
     t10params, _ = drive_tf_serving(t10cfg, dev, cli.bench_params_np(t10cfg, 0), 24, 100,
-                                    path=TF10_SERVE, also=["fused_ar_decode"])
+                                    path=TF10_SERVE, also=["fused_ar_decode_bf16"])
+    drive_tf_serving(t10cfg, dev, cli.bench_params_np(t10cfg, 0), 12, 50, path=TF10_SERVE_F32,
+                     also=["fused_ar_decode"], tier=torch.float32)
     serve_bench(TF10_PRESET, ((4096, 2), (16384, 1)), smi)
-    _, tf10_grouped = drive(TF10_GROUPED, lambda: check_grouped_tf(t10cfg, dev, t10params, 256, 8, TF10_GROUPED))
+    drive(TF10_GROUPED, lambda: check_grouped_tf(t10cfg, dev, t10params, 256, 8, TF10_GROUPED),
+          also=["fused_ar_decode_bf16"])
+    _, tf10_grouped_f32 = drive(TF10_GROUPED_F32, lambda: check_grouped_tf(
+        t10cfg, dev, t10params, 256, 8, TF10_GROUPED_F32, tier=torch.float32))
+    profile_device(f"{TF10_SERVE}: f32 serve call at B=4096", serve_call(t10cfg, t10params, dev, 4096,
+                                                                          torch.float32), 2, smi)
     for batch in (4096, 16384):
         check_grouped_tf(t10cfg, dev, t10params, batch, 8, TF10_GROUPED)
         time_grouped(t10cfg, dev, t10params, batch, 8, smi, TF10_GROUPED, profile=batch == 4096)
@@ -2454,15 +2872,16 @@ def main():
     # decode kernel; the resume bit-equal; the plain encoder against the
     # nn.TransformerEncoder yardstick at T = 100
     t10tcfg = get_preset(TF10_PRESET, batch_size=1024, steps=20, eval_every=10, ckpt_every=10)
-    t10trained, t10train_d, _ = drive_training(t10tcfg, TF10_TRAIN, dev, also=["fused_ar_decode"],
+    t10trained, t10train_d, _ = drive_training(t10tcfg, TF10_TRAIN, dev, also=["fused_ar_decode_bf16"],
                                                step_check=False, resume_tol=0.0)
     time_tf_step(t10tcfg, t10trained, t10train_d, TF10_TRAIN, smi, iters=(2, 2))
     time_encoder_t100(dev, t10params, t10cfg, smi)
 
     phase("done")
-    launches = {S2S_SERVE: s2s_serve, S2S_TRAIN: s2s_train, CU_SERVE: cu_serve, CU_TRAIN: cu_train,
-                CU10_SERVE: cu10_serve, CU10_TRAIN: cu10_train, FE_PATH: fe_launches, TF_SERVE: tf_serve,
-                TF_TRAIN: tf_train, TF10_GROUPED: tf10_grouped}
+    launches = {S2S_SERVE: s2s_serve, S2S_CELL: s2s_cell, S2S_DECODE: s2s_decode, S2S_TRAIN: s2s_train,
+                CU_SERVE: cu_serve, CU_TRAIN: cu_train, CU10_SERVE: cu10_serve, CU10_TRAIN: cu10_train,
+                FE_PATH: fe_launches, TF_SERVE: tf_serve, TF_SERVE_F32: tf_serve_f32, TF_TRAIN: tf_train,
+                TF10_GROUPED_F32: tf10_grouped_f32}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
          "launches": launches[path][name], "max_abs_err": ERRS[name], **TIMES[name]}

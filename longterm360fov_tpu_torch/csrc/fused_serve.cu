@@ -16,6 +16,24 @@
 // the same encoder phase over xs (B, T, D), returning only the final
 // top-layer h (B, H). Nothing is saved per step (the peer encoder of the
 // cross_user family at serving time: B·K rows).
+// fused_serve_kernel<false> given states also replaces
+//   longterm360fov_tpu/ops/fused_lstm.py::fused_decode / _decode_kernel:
+// the decoder phase alone, started from given h0, c0 (L, B, H) and y0
+// (B, D), with an optional static context (seq2seq.decode_fused). The same
+// instance runs it, so the decoder loop is the serve kernel's, registers
+// and all (a kernel of its own compiled the same device code with 197
+// registers against 248 and ran 2.4x slower); the only new code loads the
+// states, c into the owner-private slots of lstm_layer_step.
+// lstm_cell_kernel replaces
+//   longterm360fov_tpu/ops/fused_lstm.py::fused_lstm_cell / _cell_kernel:
+// one layer-step of B rows (the cell="pallas" path: 60 launches a
+// seq2seq-tf-30 request). One step has no recurrence to keep on chip, so it
+// is bound by its products, (Din + H) x 4H MACs a row, with x, h, c in and
+// h, c out through device memory (40 bytes a row-unit at Din = H = 128,
+// against 256 FLOP: 4.3 GFLOP and 42 MB at B = 16384, 64 µs at the FMA peak
+// against 13 µs of bytes). W (Din + H, 4H) is 512 KB at Din = 128, more
+// than a block's shared memory: it streams from L2 in 16-byte loads, as in
+// every layer-step here.
 // Inputs are read and outputs written in the caller's batch-major layout; a
 // ragged last block is masked.
 //
@@ -197,34 +215,23 @@ __device__ __forceinline__ void encode(const float* __restrict__ xs,
   }
 }
 
-// STEP_CTX = false: no context (C = 0) or a static context ctx (B, C),
-// written into the decoder's layer-0 buffer once. STEP_CTX = true: the
-// lockstep-peer tier's per-step context ctx (B, T_out, C), reloaded every
-// decoder step. A template parameter, so that the static tier's instance
-// keeps its registers.
+// The T_out-step autoregressive decoder for the block's R rows, from the
+// (h, c) of every layer in h_s and c_s and the first input y0 in x_s[0:D]:
+// per step the L layers on [y, ctx], then y = h_top @ proj_w + proj_b,
+// written to out (B, T_out, D) and fed back. STEP_CTX = false: no context
+// (C = 0) or a static context ctx (B, C), written into the decoder's layer-0
+// buffer once. STEP_CTX = true: the lockstep-peer tier's per-step context
+// ctx (B, T_out, C), reloaded every decoder step. A template parameter, so
+// that the static tier's instance keeps its registers.
 template <bool STEP_CTX>
-__global__ void __launch_bounds__(256)
-    fused_serve_kernel(const float* __restrict__ past,
-                       const float* __restrict__ ctx, float* __restrict__ out,
-                       const Weights wts, int B, int T_in, int T_out, int D,
-                       int C, int H, int L, int R) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int j0 = (tid % (H / TJ)) * TJ;
-  const int r0 = (tid / (H / TJ)) * TR;
+__device__ __forceinline__ void decode(const float* __restrict__ ctx,
+                                       float* __restrict__ out,
+                                       const Weights& wts, float* h_s,
+                                       float* c_s, float* x_s, long long row0,
+                                       int B, int T_out, int D, int C, int H,
+                                       int L, int R, int r0, int j0, int tid,
+                                       int nthr) {
   const int HR = H * R;
-  float* h_s = smem;           // L x (H, R)
-  float* c_s = h_s + L * HR;   // L x (TR * TJ, nthr): the same H * R floats
-  float* x_s = c_s + L * HR;   // (D + C, R) layer-0 input: x_t, then [y, ctx]
-  const long long row0 = (long long)blockIdx.x * R;
-
-  encode(past, wts.w_enc, wts.b_enc, h_s, c_s, x_s, row0, B, T_in, D, H, L, R,
-         r0, j0, tid, nthr);
-
-  // the decoder starts from the encoder's final (h, c) of every layer, which
-  // stay where they are, from the last observed position (x_s holds it) and,
-  // in the static-context tier, from the row's context, written once
   if constexpr (!STEP_CTX) {
     for (int i = tid; i < R * C; i += nthr) {
       const int r = i / C, k = i % C;
@@ -261,6 +268,125 @@ __global__ void __launch_bounds__(256)
     }
     __syncthreads();
   }
+}
+
+// src (B, H) row-major → dst (H, R) k-major for the block's rows; 0 past the
+// batch end.
+__device__ __forceinline__ void load_rows_kmajor(float* dst,
+                                                 const float* __restrict__ src,
+                                                 long long row0, int B, int H,
+                                                 int R, int tid, int nthr) {
+  for (int i = tid; i < R * H; i += nthr) {
+    const int r = i / H, k = i % H;
+    const long long row = row0 + r;
+    dst[k * R + r] = row < B ? src[row * H + k] : 0.0f;
+  }
+}
+
+// The cell state of the thread's TR rows x TJ units, src (B, H) → its
+// owner-private slots c[(r * TJ + j) * nthr + tid] (lstm_layer_step's
+// layout), and back; rows past the batch end are 0 and not written.
+__device__ __forceinline__ void load_c(float* c, const float* __restrict__ src,
+                                       long long row0, int B, int H, int r0,
+                                       int j0, int tid, int nthr) {
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    const long long row = row0 + r0 + r;
+    const float4 v = row < B ? __ldg(reinterpret_cast<const float4*>(src + row * H + j0))
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    c[(r * TJ + 0) * nthr + tid] = v.x;
+    c[(r * TJ + 1) * nthr + tid] = v.y;
+    c[(r * TJ + 2) * nthr + tid] = v.z;
+    c[(r * TJ + 3) * nthr + tid] = v.w;
+  }
+}
+
+__device__ __forceinline__ void store_c(float* __restrict__ dst, const float* c,
+                                        long long row0, int B, int H, int r0,
+                                        int j0, int tid, int nthr) {
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    const long long row = row0 + r0 + r;
+    if (row < B)
+      *reinterpret_cast<float4*>(dst + row * H + j0) =
+          make_float4(c[(r * TJ + 0) * nthr + tid], c[(r * TJ + 1) * nthr + tid],
+                      c[(r * TJ + 2) * nthr + tid], c[(r * TJ + 3) * nthr + tid]);
+  }
+}
+
+// h0 == nullptr: the serve kernel, the encoder over past (B, T_in, D) from
+// zero state, then the decoder. h0, c0 (L, B, H) given: the decode kernel
+// (fused_decode), the decoder alone from those states, with past = y0 as
+// (B, 1, D). One instance for both, so that the decoder loop is compiled
+// once, with the serve kernel's registers.
+template <bool STEP_CTX>
+__global__ void __launch_bounds__(256)
+    fused_serve_kernel(const float* __restrict__ past,
+                       const float* __restrict__ ctx, float* __restrict__ out,
+                       const Weights wts, int B, int T_in, int T_out, int D,
+                       int C, int H, int L, int R,
+                       const float* __restrict__ h0,
+                       const float* __restrict__ c0) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int j0 = (tid % (H / TJ)) * TJ;
+  const int r0 = (tid / (H / TJ)) * TR;
+  const int HR = H * R;
+  float* h_s = smem;           // L x (H, R)
+  float* c_s = h_s + L * HR;   // L x (TR * TJ, nthr): the same H * R floats
+  float* x_s = c_s + L * HR;   // (D + C, R) layer-0 input: x_t, then [y, ctx]
+  const long long row0 = (long long)blockIdx.x * R;
+
+  if (h0 == nullptr) {
+    encode(past, wts.w_enc, wts.b_enc, h_s, c_s, x_s, row0, B, T_in, D, H, L,
+           R, r0, j0, tid, nthr);
+  } else {
+    for (int l = 0; l < L; ++l) {
+      load_rows_kmajor(h_s + l * HR, h0 + (size_t)l * B * H, row0, B, H, R,
+                       tid, nthr);
+      load_c(c_s + l * HR, c0 + (size_t)l * B * H, row0, B, H, r0, j0, tid,
+             nthr);
+    }
+    load_step(x_s, past, row0, B, T_in, T_in - 1, D, R, tid, nthr);
+    __syncthreads();
+  }
+  // the decoder starts from the final (h, c) of every layer, which stay
+  // where they are, and from the last observed position (x_s holds it)
+  decode<STEP_CTX>(ctx, out, wts, h_s, c_s, x_s, row0, B, T_out, D, C, H, L,
+                   R, r0, j0, tid, nthr);
+}
+
+// One LSTM step (fused_lstm_cell) for the block's R rows: x (B, Din),
+// h and c (B, H) in, lstm_layer_step, h and c out.
+__global__ void __launch_bounds__(256)
+    lstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
+                     const float* __restrict__ c, const float* __restrict__ w,
+                     const float* __restrict__ b, float* __restrict__ h_out,
+                     float* __restrict__ c_out, int B, int Din, int H, int R) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int j0 = (tid % (H / TJ)) * TJ;
+  const int r0 = (tid / (H / TJ)) * TR;
+  const int HR = H * R;
+  float* h_s = smem;         // (H, R)
+  float* c_s = h_s + HR;     // (TR * TJ, nthr)
+  float* x_s = c_s + HR;     // (Din, R)
+  const long long row0 = (long long)blockIdx.x * R;
+
+  load_rows_kmajor(x_s, x, row0, B, Din, R, tid, nthr);
+  load_rows_kmajor(h_s, h, row0, B, H, R, tid, nthr);
+  load_c(c_s, c, row0, B, H, r0, j0, tid, nthr);
+  __syncthreads();
+  lstm_layer_step(x_s, Din, h_s, c_s, w, b, H, R, r0, j0, tid, nthr);
+  // the new h, row-major: neighbouring threads write neighbouring units
+  for (int i = tid; i < R * H; i += nthr) {
+    const int r = i / H, k = i % H;
+    const long long row = row0 + r;
+    if (row < B) h_out[row * H + k] = h_s[k * R + r];
+  }
+  store_c(c_out, c_s, row0, B, H, r0, j0, tid, nthr);
 }
 
 // The lockstep peer encoders of the serve tier: one LSTM cell of hidden C
@@ -382,7 +508,7 @@ int fused_serve_f32(const void* past, const void* ctx, void* out,
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(past), static_cast<const float*>(ctx),
       static_cast<float*>(out), w, batch, t_in, t_out, d, ctx_dim, hidden,
-      layers, rows);
+      layers, rows, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -437,6 +563,65 @@ int fused_encode_f32(const void* xs, void* out, const void* const* w,
   fused_encode_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xs), static_cast<float*>(out), wts, batch,
       t_len, d, hidden, layers, rows);
+  return (int)cudaGetLastError();
+}
+
+// The decoder alone: h0, c0 (layers, batch, hidden), y0 (batch, d), ctx
+// (batch, ctx_dim) or null when ctx_dim == 0, out (batch, t_out, d); the
+// decoder's weights as in fused_serve_f32. (2 * layers * hidden + d +
+// ctx_dim) * rows floats of dynamic shared memory.
+int fused_decode_f32(const void* h0, const void* c0, const void* y0,
+                     const void* ctx, void* out, const void* const* w_dec,
+                     const void* const* b_dec, const void* proj_w,
+                     const void* proj_b, int batch, int t_out, int d,
+                     int ctx_dim, int hidden, int layers, int rows,
+                     void* stream) {
+  if (bad_shape(batch, t_out, d, hidden, layers, rows) || ctx_dim < 0 ||
+      (ctx_dim > 0) != (ctx != nullptr))
+    return (int)cudaErrorInvalidValue;
+  Weights w = {};
+  for (int l = 0; l < layers; ++l) {
+    w.w_dec[l] = static_cast<const float*>(w_dec[l]);
+    w.b_dec[l] = static_cast<const float*>(b_dec[l]);
+  }
+  w.proj_w = static_cast<const float*>(proj_w);
+  w.proj_b = static_cast<const float*>(proj_b);
+  const size_t smem =
+      ((size_t)2 * layers * hidden + d + ctx_dim) * rows * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_serve_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = (rows / TR) * (hidden / TJ);
+  const int grid = (batch + rows - 1) / rows;
+  // y0 is the kernel's past of one step
+  fused_serve_kernel<false><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y0), static_cast<const float*>(ctx),
+      static_cast<float*>(out), w, batch, 1, t_out, d, ctx_dim, hidden,
+      layers, rows, static_cast<const float*>(h0), static_cast<const float*>(c0));
+  return (int)cudaGetLastError();
+}
+
+// One LSTM step: x (batch, d_in), h and c (batch, hidden), w (d_in + hidden,
+// 4 * hidden), b (4 * hidden,) → h_out, c_out (batch, hidden). (2 * hidden +
+// d_in) * rows floats of dynamic shared memory.
+int lstm_cell_f32(const void* x, const void* h, const void* c, const void* w,
+                  const void* b, void* h_out, void* c_out, int batch, int d_in,
+                  int hidden, int rows, void* stream) {
+  if (bad_shape(batch, 1, d_in, hidden, 1, rows))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)2 * hidden + d_in) * rows * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = (rows / TR) * (hidden / TJ);
+  const int grid = (batch + rows - 1) / rows;
+  lstm_cell_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(h),
+      static_cast<const float*>(c), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<float*>(h_out),
+      static_cast<float*>(c_out), batch, d_in, hidden, rows);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,16 @@
 // Device code shared by the transformer kernels (transformer_encode.cu,
-// transformer_decode.cu), exact f32 on the FMA units: a block-wide product
-// of 64 activation rows in shared memory with a weight matrix in device
-// memory, the pre-LN layer norm, the tanh GELU, and one query row's 4-head
-// attention as an online softmax.
+// transformer_decode.cu), f32 arithmetic on the FMA units: a block-wide
+// product of 64 activation rows in shared memory with a weight matrix in
+// device memory, the pre-LN layer norm, the tanh GELU, and one query row's
+// 4-head attention as an online softmax.
+//
+// Two tiers, by the type T the weights and K/V are stored in (Store<T>):
+// float, exact f32; and __nv_bfloat16, the JAX bf16 tier's arithmetic: the
+// operands of every product rounded to bf16 (the weights stored so, the
+// activations rounded where they are written: layer_norm<T>, the attention
+// output, the GELU output), products summed in f32; LN, softmax, GELU and
+// the residual stream in f32. A bf16 value is exact in f32, so each
+// product term is the exact product of the two rounded operands.
 //
 // Both kernels hold 64 activation rows of width H = 128 in shared memory
 // (token rows in the encoder, batch rows in the decoder):
@@ -18,6 +26,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -41,6 +50,78 @@ constexpr unsigned FULL = 0xffffffffu;
 
 static_assert(4 * ROWS * LDX <= BIG && ROWS * LDU <= BIG, "big buffer too small");
 
+// Loads and stores of the stored type T as f32 values: 4 consecutive
+// elements (a lane's dims of a token row) or 8 (a thread's columns of a
+// weight slab in shared memory), and the rounding to T.
+template <typename T>
+struct Store;
+
+template <>
+struct Store<float> {
+  static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
+  template <bool kReadOnly>
+  static __device__ __forceinline__ float4 load4(const float* p) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    return kReadOnly ? __ldg(q) : *q;
+  }
+  static __device__ __forceinline__ void store4(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+  static __device__ __forceinline__ void load8(const float* p, float (&w)[8]) {
+    const float4 w0 = *reinterpret_cast<const float4*>(p);
+    const float4 w1 = *reinterpret_cast<const float4*>(p + 4);
+    w[0] = w0.x; w[1] = w0.y; w[2] = w0.z; w[3] = w0.w;
+    w[4] = w1.x; w[5] = w1.y; w[6] = w1.z; w[7] = w1.w;
+  }
+};
+
+template <>
+struct Store<__nv_bfloat16> {
+  // a pair of bf16 in 32 bits, the first in the low half: widening to f32
+  // is a shift, exact
+  static __device__ __forceinline__ float lo(unsigned u) { return __uint_as_float(u << 16); }
+  static __device__ __forceinline__ float hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
+  static __device__ __forceinline__ unsigned pack(float a, float b) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const unsigned*>(&v);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  static __device__ __forceinline__ float ldg1(const __nv_bfloat16* p) {
+    return __bfloat162float(__ldg(p));
+  }
+  template <bool kReadOnly>
+  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+    const uint2* q = reinterpret_cast<const uint2*>(p);
+    const uint2 u = kReadOnly ? __ldg(q) : *q;
+    return make_float4(lo(u.x), hi(u.x), lo(u.y), hi(u.y));
+  }
+  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack(v.x, v.y), pack(v.z, v.w));
+  }
+  static __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&w)[8]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    w[0] = lo(u.x); w[1] = hi(u.x); w[2] = lo(u.y); w[3] = hi(u.y);
+    w[4] = lo(u.z); w[5] = hi(u.z); w[6] = lo(u.w); w[7] = hi(u.w);
+  }
+};
+
+// a float4 of activations rounded to T, kept in f32
+template <typename T>
+__device__ __forceinline__ float4 round4(float4 v) {
+  return make_float4(Store<T>::round(v.x), Store<T>::round(v.y), Store<T>::round(v.z),
+                     Store<T>::round(v.w));
+}
+
+// a pointer of a kernel's pointer table (kept as const float*) to a matrix
+// stored in T
+template <typename T>
+__device__ __forceinline__ const T* as(const float* p) {
+  return reinterpret_cast<const T*>(p);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
@@ -54,7 +135,8 @@ __device__ __forceinline__ void zero_smem(float* s, int n) {
 // Copies of 16 bytes from device to shared memory that do not wait:
 // cp.async on the card (the emulation for checking the logic on a CPU
 // copies at once).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+template <typename T>
+__device__ __forceinline__ void cp_async16(T* dst, const T* src) {
 #if defined(__CUDA_ARCH__)
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
@@ -76,44 +158,50 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // out = A · W[:, n0 : n0 + 128] for the block's 64 rows: A (64, K) in shared
-// memory with row stride lda (K a multiple of KS); W (K, ldw) row-major in
-// device memory. Every block reads the same matrices, so they stay in L2;
-// KS x 128 slabs of W go through a two-stage ring in shared memory (ws,
+// memory with row stride lda (K a multiple of the stage's k rows); W (K,
+// ldw) row-major in device memory, stored in T. Every block reads the same
+// matrices, so they stay in L2; slabs of W (KS x 128 floats, or 2·KS x 128
+// bf16: 4 KB either way) go through a two-stage ring in shared memory (ws,
 // WS_FLOATS floats), the next slab copied by cp.async while the block
 // computes on the current one, so no thread waits on L2 inside the k loop.
 // Thread (rg, cg) = (tid / 16, tid % 16) accumulates rows 4·rg..4·rg+3 x
 // columns n0 + 8·cg..+7 over k in order, one fmaf a term, and hands its
 // 4 x 8 sums to epi(r0, c0, acc) with c0 the absolute column. Block-wide:
 // every thread of the block calls it, and it synchronizes the block.
-template <typename Epi>
+template <typename T, typename Epi>
 __device__ __forceinline__ void gemm64(const float* A, int lda, int K,
-                                       const float* __restrict__ W, int ldw,
+                                       const T* __restrict__ W, int ldw,
                                        int n0, float* ws, Epi epi) {
+  constexpr int EPC = 16 / sizeof(T);            // elements of one 16-byte copy
+  constexpr int KST = THREADS * EPC / 128;       // k rows a stage: KS for f32
+  constexpr int STAGE = KST * 128;               // elements a stage
+  static_assert(STAGE * sizeof(T) == WSTAGE * sizeof(float), "a stage is 4 KB");
   const int r0 = (threadIdx.x >> 4) * 4;
   const int cl = (threadIdx.x & 15) * 8;  // column within the 128
-  // the stage copy: thread t moves float4 t of the KS x 128 slab
-  const int cp_row = threadIdx.x >> 5, cp_col = (threadIdx.x & 31) * 4;
-  const float* wsrc = W + (size_t)cp_row * ldw + n0 + cp_col;
-  float* wdst = ws + cp_row * 128 + cp_col;
+  // the stage copy: thread t moves 16-byte piece t of the stage's slab
+  const int cp_row = threadIdx.x / (128 / EPC), cp_col = (threadIdx.x % (128 / EPC)) * EPC;
+  const T* wsrc = W + (size_t)cp_row * ldw + n0 + cp_col;
+  T* wring = reinterpret_cast<T*>(ws);
+  T* wdst = wring + cp_row * 128 + cp_col;
   float acc[4][8];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-  const int stages = K / KS;
+  const int stages = K / KST;
   cp_async16(wdst, wsrc);
   cp_async_commit();
   for (int s = 0; s < stages; ++s) {
     cp_async_wait_all();
     __syncthreads();  // stage s landed for every thread; stage s - 1 is free
     if (s + 1 < stages) {
-      cp_async16(wdst + ((s + 1) & 1) * WSTAGE, wsrc + (size_t)(s + 1) * KS * ldw);
+      cp_async16(wdst + ((s + 1) & 1) * STAGE, wsrc + (size_t)(s + 1) * KST * ldw);
       cp_async_commit();
     }
-    const float* wk = ws + (s & 1) * WSTAGE + cl;
-    const int k0 = s * KS;
+    const T* wk = wring + (s & 1) * STAGE + cl;
+    const int k0 = s * KST;
 #pragma unroll
-    for (int kq = 0; kq < KS; kq += 4) {
+    for (int kq = 0; kq < KST; kq += 4) {
       float a[4][4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -125,9 +213,8 @@ __device__ __forceinline__ void gemm64(const float* A, int lda, int K,
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const float4 w0 = *reinterpret_cast<const float4*>(wk + (kq + kk) * 128);
-        const float4 w1 = *reinterpret_cast<const float4*>(wk + (kq + kk) * 128 + 4);
-        const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+        float w[8];
+        Store<T>::load8(wk + (kq + kk) * 128, w);
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -141,7 +228,9 @@ __device__ __forceinline__ void gemm64(const float* A, int lda, int K,
 
 // Y[r] = (X[r] - mean) · 1/sqrt(var + 1e-6) · scale + bias for every row r
 // of the block (a warp a row), with the population variance, as the
-// models' _ln. X and Y have row stride LDX.
+// models' _ln; Y rounded to T, since it is a product's operand. X and Y
+// have row stride LDX.
+template <typename T = float>
 __device__ __forceinline__ void layer_norm(const float* X, float* Y,
                                            const float* __restrict__ scale,
                                            const float* __restrict__ bias) {
@@ -155,8 +244,8 @@ __device__ __forceinline__ void layer_norm(const float* X, float* Y,
     const float var = warp_sum((d.x * d.x + d.y * d.y) + (d.z * d.z + d.w * d.w)) / (float)H;
     const float inv = 1.0f / sqrtf(var + 1e-6f);
     *reinterpret_cast<float4*>(Y + r * LDX + 4 * lane) =
-        make_float4(d.x * inv * s.x + b.x, d.y * inv * s.y + b.y,
-                    d.z * inv * s.z + b.z, d.w * inv * s.w + b.w);
+        round4<T>(make_float4(d.x * inv * s.x + b.x, d.y * inv * s.y + b.y,
+                              d.z * inv * s.z + b.z, d.w * inv * s.w + b.w));
   }
 }
 
@@ -202,13 +291,14 @@ struct Attend {
     any = true;
   }
 
-  // Tokens j0 <= j < j1 of K and V (row stride ld floats), those whose
-  // valid[j] is non-zero when valid is given, kAhead at a time so that their
-  // loads are in flight together (device memory: 8 tokens, 8 KB a warp).
-  // Kernel-read-only memory (kReadOnly) goes through the read-only path; the
-  // decode's self cache, written by the kernel, does not.
-  template <bool kReadOnly, int kAhead>
-  __device__ __forceinline__ void range(const float* K, const float* V, size_t ld,
+  // Tokens j0 <= j < j1 of K and V (stored in T, row stride ld elements),
+  // those whose valid[j] is non-zero when valid is given, kAhead at a time
+  // so that their loads are in flight together (device memory: 8 tokens,
+  // 8 KB a warp in f32). Kernel-read-only memory (kReadOnly) goes through
+  // the read-only path; the decode's self cache, written by the kernel,
+  // does not.
+  template <bool kReadOnly, int kAhead, typename T>
+  __device__ __forceinline__ void range(const T* K, const T* V, size_t ld,
                                         int j0, int j1, const unsigned char* valid) {
     const int lane = threadIdx.x & 31;
     for (int j = j0; j < j1; j += kAhead) {
@@ -219,10 +309,8 @@ struct Attend {
         const int jj = j + u;
         ok[u] = jj < j1 && (valid == nullptr || valid[jj] != 0);
         if (ok[u]) {
-          const float4* kp = reinterpret_cast<const float4*>(K + jj * ld) + lane;
-          const float4* vp = reinterpret_cast<const float4*>(V + jj * ld) + lane;
-          kk[u] = kReadOnly ? __ldg(kp) : *kp;
-          vv[u] = kReadOnly ? __ldg(vp) : *vp;
+          kk[u] = Store<T>::template load4<kReadOnly>(K + jj * ld + 4 * lane);
+          vv[u] = Store<T>::template load4<kReadOnly>(V + jj * ld + 4 * lane);
         }
       }
 #pragma unroll

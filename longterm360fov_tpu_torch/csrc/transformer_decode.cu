@@ -1,7 +1,8 @@
-// Transformer autoregressive-decode kernel for Hopper (sm_90a), exact f32:
-// no peers, per-row peer K/V, and group-shared peer K/V with the per-row
-// anchor correction δv; peer_pool "none" or "mean" and an optional peer
-// window in each.
+// Transformer autoregressive-decode kernel for Hopper (sm_90a), in two
+// tiers, exact f32 and bf16 (the JAX package's default on its
+// accelerator): no peers, per-row peer K/V, and group-shared peer K/V with
+// the per-row anchor correction δv; peer_pool "none" or "mean" and an
+// optional peer window in each.
 //
 // Replaces the TPU Pallas kernel of
 //   longterm360fov_tpu/ops/transformer_decode.py::fused_ar_decode
@@ -64,8 +65,21 @@
 // re-reads (about 130 GB at B = 4096) still come from device memory: the
 // shared tier is up against the same re-read as the per-row one, less the
 // peer share.
-// Later work (not here): bf16 K/V (half the bytes), keeping a block's K/V
-// on chip across steps, the products on the tensor cores.
+// The bf16 tier (transformer_decode_bf16) is the TPU kernel's
+// compute_dtype=bfloat16 arithmetic, not its layout: the matrices, the
+// cross and peer K/V (projected outside from bf16 operands, stored in bf16,
+// as JAX's project_kv) and the self cache in bf16; every product's
+// activation operand rounded to bf16 where it is written (the LN outputs,
+// the attention outputs less δv, the GELU output, the fed-back y), f32
+// sums; LN, softmax, q, GELU, δv and the residual stream in f32
+// (Store<T>, transformer_common.cuh). It is the same kernel body instanced
+// on the stored type. It halves the K/V bytes that bound the per-row tier
+// (about 75 GB re-read at B = 16384 for transformer-30); its products could
+// run on the tensor cores at 989 TFLOP/s, which this FMA design does not.
+// The JAX shared tier rounds q and the softmax weights to bf16 for its MXU
+// products; here every tier attends with f32 q and weights.
+// Later work (not here): keeping a block's K/V on chip across steps, the
+// products on the tensor cores.
 
 #include "transformer_common.cuh"
 
@@ -97,11 +111,15 @@ struct DecParams {
   const float* pos;    // (t_out, H) positional encoding
 };
 
+// T: the stored type of the matrices, the cross and peer K/V and the self
+// cache (Store<T>): float, or __nv_bfloat16 for the bf16 tier, whose
+// activation operands are rounded to bf16 where they are written
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
                  const unsigned char* __restrict__ peer_valid,
                  const int* __restrict__ peer_gid,
-                 const float* __restrict__ peer_dv, float* self_kv, float* __restrict__ out, int batch,
+                 const float* __restrict__ peer_dv, T* self_kv, float* __restrict__ out, int batch,
                  int layers, int t_in, int t_out, int d, int kt, int window,
                  int seg) {
   extern __shared__ float4 smem4[];
@@ -144,65 +162,68 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
 
   for (int t = 0; t < t_out; ++t) {
     // x = y · in_proj + pos[t]
+    const T* w_in = as<T>(p.w_in);
     for (int e = threadIdx.x; e < ROWS * H; e += THREADS) {
       const int r = e / H, n = e - r * H;
-      float acc = ys[r * MAX_D] * __ldg(p.w_in + n);
-      for (int i = 1; i < d; ++i) acc = fmaf(ys[r * MAX_D + i], __ldg(p.w_in + i * H + n), acc);
+      float acc = Store<T>::round(ys[r * MAX_D]) * Store<T>::ldg1(w_in + n);
+      for (int i = 1; i < d; ++i)
+        acc = fmaf(Store<T>::round(ys[r * MAX_D + i]), Store<T>::ldg1(w_in + i * H + n), acc);
       xs[r * LDX + n] = acc + __ldg(p.pos + t * H + n);
     }
     __syncthreads();
     for (int l = 0; l < layers; ++l) {
       const float* const* w = p.layer[l];
       // -- self attention over the cache, this step's k, v appended
-      layer_norm(xs, hs, w[LN1_S], w[LN1_B]);
+      layer_norm<T>(xs, hs, w[LN1_S], w[LN1_B]);
       __syncthreads();
-      gemm64(hs, LDX, H, w[S_WQ], H, 0, ws, store_to(qb));
-      gemm64(hs, LDX, H, w[S_WK], H, 0, ws, store_to(kb));
-      gemm64(hs, LDX, H, w[S_WV], H, 0, ws, store_to(vb));
+      gemm64(hs, LDX, H, as<T>(w[S_WQ]), H, 0, ws, store_to(qb));
+      gemm64(hs, LDX, H, as<T>(w[S_WK]), H, 0, ws, store_to(kb));
+      gemm64(hs, LDX, H, as<T>(w[S_WV]), H, 0, ws, store_to(vb));
       __syncthreads();
       for (int r = warp; r < nrows; r += THREADS / 32) {
         const size_t row = ((size_t)l * batch + b0 + r) * t_out * H;
-        float* kc = self_kv + row;
-        float* vc = self_kv + (size_t)layers * layer_stride + row;
-        const float4 k = *reinterpret_cast<const float4*>(kb + r * LDX + 4 * lane);
-        const float4 v = *reinterpret_cast<const float4*>(vb + r * LDX + 4 * lane);
-        reinterpret_cast<float4*>(kc + (size_t)t * H)[lane] = k;
-        reinterpret_cast<float4*>(vc + (size_t)t * H)[lane] = v;
+        T* kc = self_kv + row;
+        T* vc = self_kv + (size_t)layers * layer_stride + row;
+        // this step's k, v as the cache holds them (rounded to T)
+        const float4 k = round4<T>(*reinterpret_cast<const float4*>(kb + r * LDX + 4 * lane));
+        const float4 v = round4<T>(*reinterpret_cast<const float4*>(vb + r * LDX + 4 * lane));
+        Store<T>::store4(kc + (size_t)t * H + 4 * lane, k);
+        Store<T>::store4(vc + (size_t)t * H + 4 * lane, v);
         Attend a;
         a.init(*reinterpret_cast<const float4*>(qb + r * LDX + 4 * lane));
         a.range<false, 8>(kc, vc, H, 0, t, nullptr);
         a.add(k, v);
-        *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = a.out();
+        *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = round4<T>(a.out());
       }
       __syncthreads();
-      gemm64(ab, LDX, H, w[S_WO], H, 0, ws, add_to_x);
+      gemm64(ab, LDX, H, as<T>(w[S_WO]), H, 0, ws, add_to_x);
       __syncthreads();
       // -- cross attention over the encoder's K/V
-      layer_norm(xs, hs, w[LN2_S], w[LN2_B]);
+      layer_norm<T>(xs, hs, w[LN2_S], w[LN2_B]);
       __syncthreads();
-      gemm64(hs, LDX, H, w[C_WQ], H, 0, ws, store_to(qb));
+      gemm64(hs, LDX, H, as<T>(w[C_WQ]), H, 0, ws, store_to(qb));
       __syncthreads();
       for (int r = warp; r < nrows; r += THREADS / 32) {
         const size_t row = (size_t)(b0 + r) * t_in * H;
         Attend a;
         a.init(*reinterpret_cast<const float4*>(qb + r * LDX + 4 * lane));
-        a.range<true, 8>(w[C_K] + row, w[C_V] + row, H, 0, t_in, nullptr);
-        *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = a.out();
+        a.range<true, 8>(as<T>(w[C_K]) + row, as<T>(w[C_V]) + row, H, 0, t_in, nullptr);
+        *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = round4<T>(a.out());
       }
       __syncthreads();
-      gemm64(ab, LDX, H, w[C_WO], H, 0, ws, add_to_x);
+      gemm64(ab, LDX, H, as<T>(w[C_WO]), H, 0, ws, add_to_x);
       __syncthreads();
       // -- peer attention over the valid (and in-window) peer tokens
       if (kt > 0) {
-        layer_norm(xs, hs, w[LN3_S], w[LN3_B]);
+        layer_norm<T>(xs, hs, w[LN3_S], w[LN3_B]);
         __syncthreads();
-        gemm64(hs, LDX, H, w[P_WQ], H, 0, ws, store_to(qb));
+        gemm64(hs, LDX, H, as<T>(w[P_WQ]), H, 0, ws, store_to(qb));
         __syncthreads();
         for (int r = warp; r < nrows; r += THREADS / 32) {
           // the row's own peer memory, or its group's
           const size_t row = (size_t)(peer_gid ? __ldg(peer_gid + b0 + r) : b0 + r) * kt;
-          const float* pk = w[P_K] + row * H;
-          const float* pv = w[P_V] + row * H;
+          const T* pk = as<T>(w[P_K]) + row * H;
+          const T* pv = as<T>(w[P_V]) + row * H;
           const unsigned char* valid = peer_valid + row;
           Attend a;
           a.init(*reinterpret_cast<const float4*>(qb + r * LDX + 4 * lane));
@@ -221,14 +242,14 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
                 reinterpret_cast<const float4*>(peer_dv + ((size_t)(b0 + r) * layers + l) * H) + lane);
             o = make_float4(o.x - dv.x, o.y - dv.y, o.z - dv.z, o.w - dv.w);
           }
-          *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = o;
+          *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = round4<T>(o);
         }
         __syncthreads();
-        gemm64(ab, LDX, H, w[P_WO], H, 0, ws, add_to_x);
+        gemm64(ab, LDX, H, as<T>(w[P_WO]), H, 0, ws, add_to_x);
         __syncthreads();
       }
       // -- MLP: u = gelu(LN4(x) · W1 + b1) into big, then x += u · W2 + b2
-      layer_norm(xs, hs, w[LN4_S], w[LN4_B]);
+      layer_norm<T>(xs, hs, w[LN4_S], w[LN4_B]);
       __syncthreads();
       const float* b1 = w[B1];
       auto gelu_to_u = [big, b1](int r0, int c0, const float (&acc)[4][8]) {
@@ -236,9 +257,9 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
         for (int r = 0; r < 4; ++r)
 #pragma unroll
           for (int c = 0; c < 8; ++c)
-            big[(r0 + r) * LDU + c0 + c] = gelu_tanh(acc[r][c] + __ldg(b1 + c0 + c));
+            big[(r0 + r) * LDU + c0 + c] = Store<T>::round(gelu_tanh(acc[r][c] + __ldg(b1 + c0 + c)));
       };
-      for (int n0 = 0; n0 < MLP; n0 += H) gemm64(hs, LDX, H, w[W1], MLP, n0, ws, gelu_to_u);
+      for (int n0 = 0; n0 < MLP; n0 += H) gemm64(hs, LDX, H, as<T>(w[W1]), MLP, n0, ws, gelu_to_u);
       __syncthreads();
       const float* b2 = w[B2];
       auto mlp_to_x = [xs, b2](int r0, int c0, const float (&acc)[4][8]) {
@@ -247,20 +268,20 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
 #pragma unroll
           for (int c = 0; c < 8; ++c) xs[(r0 + r) * LDX + c0 + c] += acc[r][c] + __ldg(b2 + c0 + c);
       };
-      gemm64(big, LDU, MLP, w[W2], H, 0, ws, mlp_to_x);
+      gemm64(big, LDU, MLP, as<T>(w[W2]), H, 0, ws, mlp_to_x);
       __syncthreads();
     }
     // y = LN_f(x) · Wout + bout: out[b, t], and the next step's token
-    layer_norm(xs, hs, p.fln_s, p.fln_b);
+    layer_norm<T>(xs, hs, p.fln_s, p.fln_b);
     __syncthreads();
     for (int r = warp; r < nrows; r += THREADS / 32) {
       const float4 h = *reinterpret_cast<const float4*>(hs + r * LDX + 4 * lane);
       for (int i = 0; i < d; ++i) {
-        const float* wo = p.w_out + (4 * lane) * d + i;
-        float s = h.x * __ldg(wo);
-        s = fmaf(h.y, __ldg(wo + d), s);
-        s = fmaf(h.z, __ldg(wo + 2 * d), s);
-        s = fmaf(h.w, __ldg(wo + 3 * d), s);
+        const T* wo = as<T>(p.w_out) + (4 * lane) * d + i;
+        float s = h.x * Store<T>::ldg1(wo);
+        s = fmaf(h.y, Store<T>::ldg1(wo + d), s);
+        s = fmaf(h.z, Store<T>::ldg1(wo + 2 * d), s);
+        s = fmaf(h.w, Store<T>::ldg1(wo + 3 * d), s);
         const float y = warp_sum(s) + __ldg(p.b_out + i);
         if (lane == 0) {
           out[((size_t)(b0 + r) * t_out + t) * d + i] = y;
@@ -272,27 +293,26 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
 // One launch on `stream`: grid ceil(batch / 64) blocks of 256 threads,
 // 210,944 + 1,024 bytes of dynamic shared memory. y0 (batch, d) f32,
 // peer_valid (batch, kt) bytes (0 = masked; null when kt = 0), self_kv
-// (2, layers, batch, t_out, 128) f32 scratch, out (batch, t_out, d) f32;
+// (2, layers, batch, t_out, 128) scratch, out (batch, t_out, d) f32;
 // layer_ptrs holds 24 device pointers a layer in DecPtr's order (the peer
 // ones null when kt = 0). Group-shared peers: peer_gid (batch,) int32 row
 // → group in [0, G), and the peer K, V (G, kt, 128) and peer_valid (G, kt)
 // hold the G groups'; peer_dv (batch, layers, 128) f32 or null. window <=
 // 0: no peer window; else token i of the peer memory is attended at step t
-// when |i % seg - t| <= window. Returns cudaGetLastError() (0 = ok), or
+// when |i % seg - t| <= window. In the f32 tier every tensor is f32; in the
+// bf16 tier the matrices (the self, cross and peer wq, wk, wv, wo as the
+// table lists them, w1, w2), w_in, w_out, the cross and peer K, V and
+// self_kv are bf16, the rest f32. Returns cudaGetLastError() (0 = ok), or
 // cudaErrorInvalidValue for a shape the kernel does not take.
-int transformer_decode_f32(const void* y0, const void* peer_valid, const void* peer_gid,
-                           const void* peer_dv, void* self_kv, void* out,
-                           const void* const* layer_ptrs, const void* w_in, const void* w_out,
-                           const void* b_out, const void* fln_s, const void* fln_b,
-                           const void* pos, int batch, int layers, int t_in, int t_out, int d,
-                           int kt, int window, int seg, void* stream) {
+template <typename T>
+int launch(const void* y0, const void* peer_valid, const void* peer_gid, const void* peer_dv,
+                  void* self_kv, void* out, const void* const* layer_ptrs, const void* w_in,
+                  const void* w_out, const void* b_out, const void* fln_s, const void* fln_b,
+                  const void* pos, int batch, int layers, int t_in, int t_out, int d, int kt,
+                  int window, int seg, void* stream) {
   if (batch < 1 || layers < 1 || layers > MAX_LAYERS || t_in < 1 || t_out < 1 || d < 1 ||
       d > MAX_D || kt < 0 || (kt > 0 && (peer_valid == nullptr || seg < 1)) ||
       ((peer_gid != nullptr || peer_dv != nullptr) && kt == 0) || (peer_dv != nullptr && peer_gid == nullptr))
@@ -309,14 +329,39 @@ int transformer_decode_f32(const void* y0, const void* peer_valid, const void* p
   p.pos = static_cast<const float*>(pos);
   const size_t smem = (SMEM_FLOATS + ROWS * MAX_D) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ar_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ar_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (batch + ROWS - 1) / ROWS;
-  ar_decode_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  ar_decode_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<const float*>(y0), static_cast<const unsigned char*>(peer_valid),
-      static_cast<const int*>(peer_gid), static_cast<const float*>(peer_dv), static_cast<float*>(self_kv),
+      static_cast<const int*>(peer_gid), static_cast<const float*>(peer_dv), static_cast<T*>(self_kv),
       static_cast<float*>(out), batch, layers, t_in, t_out, d, kt, window, seg);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int transformer_decode_f32(const void* y0, const void* peer_valid, const void* peer_gid,
+                           const void* peer_dv, void* self_kv, void* out,
+                           const void* const* layer_ptrs, const void* w_in, const void* w_out,
+                           const void* b_out, const void* fln_s, const void* fln_b,
+                           const void* pos, int batch, int layers, int t_in, int t_out, int d,
+                           int kt, int window, int seg, void* stream) {
+  return launch<float>(y0, peer_valid, peer_gid, peer_dv, self_kv, out, layer_ptrs, w_in, w_out, b_out,
+                       fln_s, fln_b, pos, batch, layers, t_in, t_out, d, kt, window, seg, stream);
+}
+
+int transformer_decode_bf16(const void* y0, const void* peer_valid, const void* peer_gid,
+                            const void* peer_dv, void* self_kv, void* out,
+                            const void* const* layer_ptrs, const void* w_in, const void* w_out,
+                            const void* b_out, const void* fln_s, const void* fln_b,
+                            const void* pos, int batch, int layers, int t_in, int t_out, int d,
+                            int kt, int window, int seg, void* stream) {
+  return launch<__nv_bfloat16>(y0, peer_valid, peer_gid, peer_dv, self_kv, out, layer_ptrs, w_in, w_out,
+                               b_out, fln_s, fln_b, pos, batch, layers, t_in, t_out, d, kt, window, seg,
+                               stream);
 }
 
 const char* transformer_decode_error_string(int code) {

@@ -1,4 +1,5 @@
-// Transformer encoder kernel for Hopper (sm_90a), exact f32.
+// Transformer encoder kernel for Hopper (sm_90a), in two tiers: exact f32,
+// and bf16 (the JAX package's default on its accelerator).
 //
 // Replaces the TPU Pallas kernel of
 //   longterm360fov_tpu/ops/transformer_encode.py::fused_encode_tokens
@@ -28,6 +29,17 @@
 // head) over its viewer's T key rows in shared memory, an online softmax.
 // The kernel takes T <= 64 (one viewer's tokens in one block), the JAX
 // routing threshold; the wrapper raises above it.
+//
+// The bf16 tier (transformer_encode_bf16) is the TPU kernel's
+// compute_dtype=bfloat16 arithmetic, not its layout: in_proj and the
+// matrices stored in bf16, every product's activation operand rounded to
+// bf16 where it is written, f32 sums; LN, softmax, GELU, q, k, v and the
+// residual stream in f32 (Store<T> in transformer_common.cuh). It is the
+// same kernel body instanced on the stored type. Its bound: the products in
+// bf16 could run on the tensor cores (989 TFLOP/s dense), so at B = 16384
+// the 0.40 TFLOP take 0.4 ms, and the bytes (0.08 ms) stay below; this FMA
+// design computes them at the f32 rate and reads half the weight bytes
+// from L2. Tensor cores are later work.
 
 #include "transformer_encode.cuh"
 
@@ -35,12 +47,36 @@ namespace {
 
 using namespace tfm;
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 encode_tokens_kernel(const EncParams p, const float* __restrict__ past,
                      float* __restrict__ enc, int batch, int layers, int t,
                      int d, int seqs) {
   extern __shared__ float4 smem4[];
-  encode_rows<false>(p, past, enc, nullptr, batch, layers, t, d, seqs, reinterpret_cast<float*>(smem4));
+  encode_rows<false, T>(p, past, enc, nullptr, batch, layers, t, d, seqs, reinterpret_cast<float*>(smem4));
+}
+
+template <typename T>
+int launch(const void* past, void* enc, const void* const* layer_ptrs, const void* w_in,
+           const void* pos, int batch, int layers, int t, int d, void* stream) {
+  if (batch < 1 || layers < 1 || layers > MAX_LAYERS || t < 1 || t > ROWS || d < 1)
+    return (int)cudaErrorInvalidValue;
+  EncParams p = {};
+  for (int l = 0; l < layers; ++l)
+    for (int i = 0; i < ENC_PTRS; ++i)
+      p.layer[l][i] = static_cast<const float*>(layer_ptrs[l * ENC_PTRS + i]);
+  p.w_in = static_cast<const float*>(w_in);
+  p.pos = static_cast<const float*>(pos);
+  const size_t smem = SMEM_FLOATS * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      encode_tokens_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int seqs = ROWS / t;
+  const int grid = (batch + seqs - 1) / seqs;
+  encode_tokens_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<const float*>(past), static_cast<float*>(enc), batch, layers, t,
+      d, seqs);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -55,24 +91,15 @@ extern "C" {
 int transformer_encode_f32(const void* past, void* enc, const void* const* layer_ptrs,
                            const void* w_in, const void* pos, int batch, int layers,
                            int t, int d, void* stream) {
-  if (batch < 1 || layers < 1 || layers > MAX_LAYERS || t < 1 || t > ROWS || d < 1)
-    return (int)cudaErrorInvalidValue;
-  EncParams p = {};
-  for (int l = 0; l < layers; ++l)
-    for (int i = 0; i < ENC_PTRS; ++i)
-      p.layer[l][i] = static_cast<const float*>(layer_ptrs[l * ENC_PTRS + i]);
-  p.w_in = static_cast<const float*>(w_in);
-  p.pos = static_cast<const float*>(pos);
-  const size_t smem = SMEM_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      encode_tokens_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int seqs = ROWS / t;
-  const int grid = (batch + seqs - 1) / seqs;
-  encode_tokens_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const float*>(past), static_cast<float*>(enc), batch, layers, t,
-      d, seqs);
-  return (int)cudaGetLastError();
+  return launch<float>(past, enc, layer_ptrs, w_in, pos, batch, layers, t, d, stream);
+}
+
+// The bf16 tier: the same, with w_in and the matrices wq, wk, wv, wo, w1,
+// w2 of every layer stored in bf16 (the LN parameters and biases stay f32).
+int transformer_encode_bf16(const void* past, void* enc, const void* const* layer_ptrs,
+                            const void* w_in, const void* pos, int batch, int layers,
+                            int t, int d, void* stream) {
+  return launch<__nv_bfloat16>(past, enc, layer_ptrs, w_in, pos, batch, layers, t, d, stream);
 }
 
 const char* transformer_encode_error_string(int code) {

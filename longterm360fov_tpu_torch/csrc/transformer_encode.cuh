@@ -43,7 +43,11 @@ __device__ __forceinline__ void rows_out(const float* src, float* __restrict__ d
 
 // The block's forward; smem holds SMEM_FLOATS floats. With kStash, stash
 // (layers, STASH, n_tokens, H) receives every layer's x0, x1, q, k, v, att.
-template <bool kStash>
+// T: the stored type of in_proj and the layers' matrices (Store<T>), float
+// or, in the serving kernel's bf16 tier, __nv_bfloat16: then every
+// product's activation operand is rounded to bf16 too (past, the LN
+// outputs, the attention output, the GELU output), q, k, v stay f32.
+template <bool kStash, typename T = float>
 __device__ __forceinline__ void encode_rows(const EncParams& p, const float* __restrict__ past,
                                             float* __restrict__ enc, float* __restrict__ stash,
                                             int batch, int layers, int t, int d, int seqs,
@@ -69,8 +73,9 @@ __device__ __forceinline__ void encode_rows(const EncParams& p, const float* __r
   for (int e = threadIdx.x; e < n_tok * H; e += THREADS) {
     const int m = e / H, n = e - m * H;
     const float* xp = past + (tok0 + m) * d;
-    float acc = xp[0] * __ldg(p.w_in + n);
-    for (int i = 1; i < d; ++i) acc = fmaf(xp[i], __ldg(p.w_in + i * H + n), acc);
+    const T* w_in = as<T>(p.w_in);
+    float acc = Store<T>::round(xp[0]) * Store<T>::ldg1(w_in + n);
+    for (int i = 1; i < d; ++i) acc = fmaf(Store<T>::round(xp[i]), Store<T>::ldg1(w_in + i * H + n), acc);
     xs[m * LDX + n] = acc + __ldg(p.pos + (m % t) * H + n);
   }
   __syncthreads();
@@ -78,7 +83,7 @@ __device__ __forceinline__ void encode_rows(const EncParams& p, const float* __r
   for (int l = 0; l < layers; ++l) {
     const float* const* w = p.layer[l];
     if (kStash) rows_out(xs, stash_of(l, ST_X0), tok0, n_tok);
-    layer_norm(xs, hs, w[LN1_S], w[LN1_B]);
+    layer_norm<T>(xs, hs, w[LN1_S], w[LN1_B]);
     __syncthreads();
     auto store_to = [](float* dst) {
       return [dst](int r0, int c0, const float (&acc)[4][8]) {
@@ -90,9 +95,9 @@ __device__ __forceinline__ void encode_rows(const EncParams& p, const float* __r
         }
       };
     };
-    gemm64(hs, LDX, H, w[WQ], H, 0, ws, store_to(qb));
-    gemm64(hs, LDX, H, w[WK], H, 0, ws, store_to(kb));
-    gemm64(hs, LDX, H, w[WV], H, 0, ws, store_to(vb));
+    gemm64(hs, LDX, H, as<T>(w[WQ]), H, 0, ws, store_to(qb));
+    gemm64(hs, LDX, H, as<T>(w[WK]), H, 0, ws, store_to(kb));
+    gemm64(hs, LDX, H, as<T>(w[WV]), H, 0, ws, store_to(vb));
     __syncthreads();
     // bidirectional attention: a warp a query row, over its viewer's t keys
     for (int m = warp; m < n_tok; m += THREADS / 32) {
@@ -100,7 +105,7 @@ __device__ __forceinline__ void encode_rows(const EncParams& p, const float* __r
       Attend a;
       a.init(*reinterpret_cast<const float4*>(qb + m * LDX + 4 * lane));
       a.range<false, 4>(kb + first * LDX, vb + first * LDX, LDX, 0, t, nullptr);
-      *reinterpret_cast<float4*>(ab + m * LDX + 4 * lane) = a.out();
+      *reinterpret_cast<float4*>(ab + m * LDX + 4 * lane) = round4<T>(a.out());
     }
     __syncthreads();
     if (kStash) {
@@ -115,10 +120,10 @@ __device__ __forceinline__ void encode_rows(const EncParams& p, const float* __r
 #pragma unroll
         for (int c = 0; c < 8; ++c) xs[(r0 + r) * LDX + c0 + c] += acc[r][c];
     };
-    gemm64(ab, LDX, H, w[WO], H, 0, ws, add_to_x);
+    gemm64(ab, LDX, H, as<T>(w[WO]), H, 0, ws, add_to_x);
     __syncthreads();
     if (kStash) rows_out(xs, stash_of(l, ST_X1), tok0, n_tok);
-    layer_norm(xs, hs, w[LN2_S], w[LN2_B]);
+    layer_norm<T>(xs, hs, w[LN2_S], w[LN2_B]);
     __syncthreads();
     // u = gelu(h · W1 + b1), 128 columns a pass, into big (q, k, v, a are dead)
     const float* b1 = w[B1];
@@ -127,9 +132,9 @@ __device__ __forceinline__ void encode_rows(const EncParams& p, const float* __r
       for (int r = 0; r < 4; ++r)
 #pragma unroll
         for (int c = 0; c < 8; ++c)
-          big[(r0 + r) * LDU + c0 + c] = gelu_tanh(acc[r][c] + __ldg(b1 + c0 + c));
+          big[(r0 + r) * LDU + c0 + c] = Store<T>::round(gelu_tanh(acc[r][c] + __ldg(b1 + c0 + c)));
     };
-    for (int n0 = 0; n0 < MLP; n0 += H) gemm64(hs, LDX, H, w[W1], MLP, n0, ws, gelu_to_u);
+    for (int n0 = 0; n0 < MLP; n0 += H) gemm64(hs, LDX, H, as<T>(w[W1]), MLP, n0, ws, gelu_to_u);
     __syncthreads();
     const float* b2 = w[B2];
     auto mlp_to_x = [xs, b2](int r0, int c0, const float (&acc)[4][8]) {
@@ -138,7 +143,7 @@ __device__ __forceinline__ void encode_rows(const EncParams& p, const float* __r
 #pragma unroll
         for (int c = 0; c < 8; ++c) xs[(r0 + r) * LDX + c0 + c] += acc[r][c] + __ldg(b2 + c0 + c);
     };
-    gemm64(big, LDU, MLP, w[W2], H, 0, ws, mlp_to_x);
+    gemm64(big, LDU, MLP, as<T>(w[W2]), H, 0, ws, mlp_to_x);
     __syncthreads();
   }
   // enc_mem rows out

@@ -14,7 +14,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-__all__ = ["LSTMParams", "LSTMState", "init_lstm", "lstm_cell"]
+__all__ = ["LSTMParams", "LSTMState", "init_lstm", "lstm_cell", "get_cell_fn"]
 
 
 class LSTMParams(NamedTuple):
@@ -58,3 +58,18 @@ def lstm_cell(
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+def get_cell_fn(name: str = "xla"):
+    """Resolve a cell implementation by name, as the JAX ``get_cell_fn``:
+    "xla" gives :func:`lstm_cell`, "pallas" the hand-written one-step kernel
+    ``ops.fused_lstm.fused_lstm_cell`` (its plain version, ``lstm_cell``, on
+    CPU tensors; no backward, as the TPU kernel has none)."""
+    if name == "xla":
+        return lstm_cell
+    if name == "pallas":
+        # imported here: ops.fused_lstm imports this module
+        from ..ops.fused_lstm import fused_lstm_cell
+
+        return fused_lstm_cell
+    raise ValueError(f"unknown cell impl {name!r}")

@@ -29,8 +29,8 @@ from typing import Dict, Optional
 import torch
 
 from . import seq2seq
-from .cell import init_lstm, lstm_cell
-from .seq2seq import Seq2SeqConfig, check_cell
+from .cell import get_cell_fn, init_lstm
+from .seq2seq import Seq2SeqConfig
 
 __all__ = [
     "init",
@@ -77,7 +77,8 @@ def encode_peers(
     through the differentiable training kernels (``ops.lstm_train.lstm_seq``,
     which save every step's residuals for the backward), ``"serve"`` through
     the inference-only encode kernel (``ops.fused_lstm.fused_encode``, final
-    state only), ``False`` through a step loop of ``cell.lstm_cell``."""
+    state only), ``False`` through a step loop of the configured cell
+    (``cfg.cell``)."""
     b, k, t, d = other_future_n.shape
     flat = other_future_n.reshape(b * k, t, d).to(cfg.dtype)
     if use_fused_seq == "serve":
@@ -90,10 +91,11 @@ def encode_peers(
 
         h = lstm_seq([params["peer_encoder"]], flat.float().contiguous())[:, -1, :]
     else:
+        cell_fn = get_cell_fn(cfg.cell)
         z = flat.new_zeros((b * k, cfg.ctx_dim))
         state = (z, z)
-        for s in range(t):
-            state = lstm_cell(params["peer_encoder"], flat[:, s], state)
+        for x in flat.transpose(0, 1).contiguous():
+            state = cell_fn(params["peer_encoder"], x, state)
         h = state[0]
     return _masked_mean(h.reshape(b, k, cfg.ctx_dim), other_mask, 1)
 
@@ -106,14 +108,15 @@ def encode_peers_aligned(
 ) -> torch.Tensor:
     """→ (B, T, ctx_dim) time-aligned peer context (``cfg.peer_align``):
     decoder step t gets the masked mean of the peer encoder's hidden state
-    at step t."""
+    at step t, stepped on the configured cell (``cfg.cell``)."""
+    cell_fn = get_cell_fn(cfg.cell)
     b, k, t, d = other_future_n.shape
     flat = other_future_n.reshape(b * k, t, d).to(cfg.dtype)
     z = flat.new_zeros((b * k, cfg.ctx_dim))
     state = (z, z)
     hs = []
-    for s in range(t):
-        state = lstm_cell(params["peer_encoder"], flat[:, s], state)
+    for x in flat.transpose(0, 1).contiguous():
+        state = cell_fn(params["peer_encoder"], x, state)
         hs.append(state[0])
     hs = torch.stack(hs, dim=1).reshape(b, k, t, cfg.ctx_dim)
     return _masked_mean(hs, other_mask, 1)
@@ -195,7 +198,6 @@ def apply(
 ) -> torch.Tensor:
     """Forward pass; peers → context → seq2seq. With no peers (or all
     masked) the context is zeros, identical to plain seq2seq."""
-    check_cell(cfg)
     if context is None:
         if other_future_n is not None and cfg.peer_align:
             context = encode_peers_aligned(params, cfg, other_future_n, other_mask)
@@ -222,7 +224,6 @@ def apply_fused_tf(
     """Teacher-forced forward entirely on the training kernels, the peer
     encoder included. Under ``peer_align`` with peers: scheduled sampling
     with every coin heads on the lockstep kernels."""
-    check_cell(cfg)
     if cfg.peer_align and other_future_n is not None and context is None:
         coins = past_n.new_ones((future_n.shape[1], past_n.shape[0], 1), dtype=torch.float32)
         return _apply_fused_aligned(params, cfg, past_n, future_n, other_future_n=other_future_n,
@@ -255,7 +256,6 @@ def apply_fused_ss(
     ``lstm_seq_states`` and the peers and decoder on ``aligned_ss_decode``.
     The coins are ``coins`` (H_out, B, 1), or drawn from ``rng`` at
     ``teacher_prob`` as ``seq2seq.apply`` draws them."""
-    check_cell(cfg)
     if cfg.peer_align and other_future_n is not None and context is None:
         if coins is None:
             if rng is None:
@@ -288,7 +288,6 @@ def serve_fused(
     ``peer_align`` with peers, the lockstep tier of ``fused_serve``: step
     t's context is the mask-weighted mean of the peer encoders' hidden
     states at step t; a peer span other than h_out raises."""
-    check_cell(cfg)
     if cfg.peer_align and other_future_n is not None and context is None:
         from ..ops.fused_lstm import fused_serve
 

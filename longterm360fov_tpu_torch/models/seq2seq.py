@@ -8,6 +8,10 @@ loop is one CUDA kernel (:func:`serve_fused`, ``ops.fused_lstm.fused_serve``),
 the teacher-forced training forward and backward run on the kernels of
 ``ops.lstm_train`` (:func:`apply_fused_tf`), and the scheduled-sampling
 decoder on those of ``ops.lstm_ss`` (:func:`apply_fused_ss`).
+``cfg.cell`` picks the cell of the step loops (:func:`apply`, :func:`decode`,
+:func:`decode_fused`'s encoder): "xla", ``cell.lstm_cell``, or "pallas", the
+one-step kernel ``ops.fused_lstm.fused_lstm_cell``; the fused entries run
+whole-sequence kernels and ignore it, as in JAX.
 
 Params are a plain dict, the JAX pytree's structure:
 ``{"encoder": [LSTMParams], "decoder": [LSTMParams], "proj": {"w", "b"}}``.
@@ -21,14 +25,14 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .cell import init_lstm, lstm_cell
+from .cell import get_cell_fn, init_lstm
 
 __all__ = [
     "Seq2SeqConfig",
-    "check_cell",
     "init",
     "apply",
     "decode",
+    "decode_fused",
     "draw_coins",
     "apply_fused_tf",
     "apply_fused_ss",
@@ -49,7 +53,7 @@ class Seq2SeqConfig:
     h_in: int = 10
     h_out: int = 10
     ctx_dim: int = 0  # per-viewer context appended to decoder inputs
-    cell: str = "xla"  # JAX cell impl name; kept for the hash
+    cell: str = "xla"  # "xla" or "pallas" (models.cell.get_cell_fn)
     param_dtype: str = "float32"
     peer_pool: str = "none"  # transformer family only
     peer_window: int = 0  # transformer family only
@@ -61,18 +65,6 @@ class Seq2SeqConfig:
 
 
 Params = Dict[str, Any]
-
-
-def check_cell(cfg: Seq2SeqConfig):
-    """Raise unless ``cfg.cell`` is "xla". The JAX package's "pallas" cell
-    runs its ``fused_lstm_cell`` TPU kernel, which the port has not ported
-    (ROADMAP.md Queue 2 #2, slice I): the plain cell in its place would be a
-    silent fallback."""
-    if cfg.cell != "xla":
-        raise NotImplementedError(
-            f"cell={cfg.cell!r}: the fused LSTM cell kernel is not ported yet "
-            f"(ROADMAP.md Queue 2 #2, slice I); the port runs cell='xla'"
-        )
 
 
 def init(gen: torch.Generator, cfg: Seq2SeqConfig, *, device) -> Params:
@@ -97,10 +89,10 @@ def init(gen: torch.Generator, cfg: Seq2SeqConfig, *, device) -> Params:
     }
 
 
-def _run(layer_params, states, x):
+def _run(cell_fn, layer_params, states, x):
     new_states = []
     for p, st in zip(layer_params, states):
-        st = lstm_cell(p, x, st)
+        st = cell_fn(p, x, st)
         new_states.append(st)
         x = st[0]
     return new_states, x
@@ -108,12 +100,14 @@ def _run(layer_params, states, x):
 
 def _encode(params: Params, cfg: Seq2SeqConfig, past_n: torch.Tensor):
     """Encoder stack over the past window (B, H_in, D) → final per-layer
-    (h, c) states."""
-    xs = past_n.to(cfg.dtype)
-    z = xs.new_zeros((xs.shape[0], cfg.hidden))
+    (h, c) states, on the configured cell. The steps' inputs are the rows
+    of a time-major copy, contiguous, as the kernel cell takes them."""
+    cell_fn = get_cell_fn(cfg.cell)
+    xs = past_n.to(cfg.dtype).transpose(0, 1).contiguous()  # (T, B, D)
+    z = xs.new_zeros((xs.shape[1], cfg.hidden))
     states = [(z, z)] * cfg.layers
-    for t in range(xs.shape[1]):
-        states, _ = _run(params["encoder"], states, xs[:, t])
+    for x in xs:
+        states, _ = _run(cell_fn, params["encoder"], states, x)
     return states
 
 
@@ -159,19 +153,19 @@ def apply(
     ``context``: optional (B, ctx_dim) vector appended to every decoder
     input, or (B, H_out, ctx_dim) where step t gets ``context[:, t]``.
     """
-    check_cell(cfg)
+    cell_fn = get_cell_fn(cfg.cell)
     if future_n is not None and coins is None and rng is not None:
         coins = draw_coins(rng, teacher_prob, cfg.h_out, past_n.shape[0])
     dt = cfg.dtype
     states = _encode(params, cfg, past_n)
-    y0 = past_n[:, -1].to(dt)  # last observed position
+    y0 = past_n[:, -1].to(dt).contiguous()  # last observed position
     if context is not None:
         context = context.to(dt)
     teacher = None
     if future_n is not None:
-        fut = future_n.to(dt)
-        # teacher input at step t is the TRUE position at t-1
-        teacher = torch.cat([y0[:, None], fut[:, :-1]], dim=1)
+        fut = future_n.to(dt).transpose(0, 1)
+        # teacher input at step t is the TRUE position at t-1; time-major
+        teacher = torch.cat([y0[None], fut[:-1]], dim=0)
 
     ys = []
     y = y0
@@ -179,13 +173,13 @@ def apply(
         if teacher is None:
             x = y
         elif coins is None:
-            x = teacher[:, t]
+            x = teacher[t]
         else:
-            x = torch.where(coins[t] > 0, teacher[:, t], y)
+            x = torch.where(coins[t] > 0, teacher[t], y)
         if context is not None:
             ctx_t = context[:, t] if context.dim() == 3 else context
             x = torch.cat([x, ctx_t], dim=-1)
-        states, h = _run(params["decoder"], states, x)
+        states, h = _run(cell_fn, params["decoder"], states, x)
         y = _project(params, h).to(dt)
         ys.append(y)
     return torch.stack(ys, dim=1).float()
@@ -200,6 +194,30 @@ def decode(
 ) -> torch.Tensor:
     """Pure autoregressive decode (the plain inference path)."""
     return apply(params, cfg, past_n, None, context=context)
+
+
+def decode_fused(
+    params: Params,
+    cfg: Seq2SeqConfig,
+    past_n: torch.Tensor,
+    *,
+    context: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Autoregressive decode with the whole-horizon decode kernel
+    (``ops.fused_lstm.fused_decode``): the encoder's step loop on the
+    configured cell, then the T_out decoder steps in one launch from its
+    final f32 states → (B, H_out, D). Numerics match :func:`decode`. Twin of
+    the JAX ``decode_fused``, whose ``tile_b`` is a TPU tiling knob."""
+    from ..ops.fused_lstm import fused_decode
+
+    states = _encode(params, cfg, past_n)
+    h0 = torch.stack([s[0] for s in states]).float()
+    c0 = torch.stack([s[1] for s in states]).float()
+    y0 = past_n[:, -1, :].float().contiguous()
+    return fused_decode(
+        params["decoder"], params["proj"]["w"], params["proj"]["b"], h0, c0, y0, cfg.h_out,
+        context=None if context is None else context.float().contiguous(),
+    )
 
 
 def apply_fused_tf(
@@ -226,7 +244,6 @@ def apply_fused_tf(
     context from the peers inside ``ops.lstm_align.aligned_ss_decode``:
     ``cross_user.apply_fused_tf``), and bf16 ``compute_dtype`` (ROADMAP.md
     Queue 2, the lstm_seq_states bf16-compute tier)."""
-    check_cell(cfg)
     if context is not None and context.dim() != 2:
         raise NotImplementedError(
             "seq2seq.apply_fused_tf takes a static (B, C) context; a per-step "
@@ -278,7 +295,6 @@ def apply_fused_ss(
     from ..ops.lstm_ss import ss_decode
     from ..ops.lstm_train import lstm_seq_states
 
-    check_cell(cfg)
     batch = past_n.shape[0]
     z = past_n.new_zeros((cfg.layers, batch, cfg.hidden), dtype=torch.float32)
     _, hT, cT = lstm_seq_states(
@@ -316,7 +332,6 @@ def serve_fused(
     # imports this module
     from ..ops.fused_lstm import fused_serve
 
-    check_cell(cfg)
     return fused_serve(
         params["encoder"],
         params["decoder"],

@@ -23,7 +23,13 @@ viewers' known futures, MLP), then a final LN and the output projection.
 
 The numerics are JAX's: population variance and eps 1e-6 inside the rsqrt
 of the LN, -1e9 (not -inf) on masked logits, the tanh GELU, ``[sin | cos]``
-positional halves, f32 products.
+positional halves, f32 products. The serving functions' bf16 tier
+(``compute_dtype=torch.bfloat16``: :func:`_encode`, :func:`_ar_decode`, the
+plain versions of the kernels' bf16 tiers) is the JAX kernels' arithmetic:
+both operands of every product rounded to bf16 (:func:`_mm`), the sums in
+f32; the cross, peer and self K/V rounded to bf16 as stored; LN, softmax,
+GELU, q and the residual stream in f32. :func:`serve_fused` serves in it by
+default on the card, as JAX does on its accelerator.
 
 Params are a plain dict, the JAX pytree's structure: ``in_proj``,
 ``out_proj`` {w, b}, ``final_ln`` {scale, bias}, ``enc`` a list of {ln1,
@@ -112,16 +118,29 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, t, n * d)
 
 
-def _attention(p, q_in, kv_in, *, mask=None):
+def _round(x, compute_dtype):
+    """``x`` rounded to ``compute_dtype`` and held in f32: the bf16 tier's
+    rounding of a stored value; f32 leaves it as it is."""
+    return x if compute_dtype == torch.float32 else x.to(compute_dtype).float()
+
+
+def _mm(x, w, compute_dtype=torch.float32):
+    """``x @ w``; in the bf16 tier both operands rounded to bf16 and the
+    product in f32 (each term exact, the sum in f32), as the JAX tier's
+    bf16 dot with ``preferred_element_type=float32``."""
+    return _round(x, compute_dtype) @ _round(w, compute_dtype)
+
+
+def _attention(p, q_in, kv_in, *, mask=None, compute_dtype=torch.float32):
     """Multi-head attention. q_in (B, Tq, H), kv_in (B, Tk, H); mask
     (B, Tq, Tk) or (1, Tq, Tk) bool, True = attend."""
-    q = _split_heads(q_in @ p["wq"])
-    k = _split_heads(kv_in @ p["wk"])
-    v = _split_heads(kv_in @ p["wv"])
-    return _attention_qkv(p, q, k, v, mask=mask)
+    q = _split_heads(_mm(q_in, p["wq"], compute_dtype))
+    k = _split_heads(_mm(kv_in, p["wk"], compute_dtype))
+    v = _split_heads(_mm(kv_in, p["wv"], compute_dtype))
+    return _attention_qkv(p, q, k, v, mask=mask, compute_dtype=compute_dtype)
 
 
-def _attention_qkv(p, q, k, v, *, mask=None, v_shift=None):
+def _attention_qkv(p, q, k, v, *, mask=None, v_shift=None, compute_dtype=torch.float32):
     """Attention of split-head q, k, v, then ``wo``; ``v_shift`` (B, H) is
     subtracted from the merged heads before ``wo``: the group-shared peer
     tier's anchor correction δv (the weights sum to 1, so a V shifted by a
@@ -134,7 +153,7 @@ def _attention_qkv(p, q, k, v, *, mask=None, v_shift=None):
     out = _merge_heads(torch.einsum("bnqk,bnkd->bnqd", w, v))
     if v_shift is not None:
         out = out - v_shift[:, None, :]
-    return out @ p["wo"]
+    return _mm(out, p["wo"], compute_dtype)
 
 
 def _pos_enc(t: int, h: int, offset: int = 0, *, device="cpu") -> torch.Tensor:
@@ -146,18 +165,20 @@ def _pos_enc(t: int, h: int, offset: int = 0, *, device="cpu") -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _mlp(p, x):
-    return F.gelu(x @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"] + p["b2"]
+def _mlp(p, x, compute_dtype=torch.float32):
+    u = F.gelu(_mm(x, p["w1"], compute_dtype) + p["b1"], approximate="tanh")
+    return _mm(u, p["w2"], compute_dtype) + p["b2"]
 
 
-def _encode(params, cfg, past_n):
-    """The encoder stack over (B, T, D) → enc_mem (B, T, H)."""
-    x = past_n.to(cfg.dtype) @ params["in_proj"] + _pos_enc(past_n.shape[1], cfg.hidden,
-                                                            device=past_n.device)
+def _encode(params, cfg, past_n, compute_dtype=torch.float32):
+    """The encoder stack over (B, T, D) → enc_mem (B, T, H); in the bf16
+    ``compute_dtype`` the plain version of the encoder kernel's bf16 tier."""
+    x = _mm(past_n.to(cfg.dtype), params["in_proj"], compute_dtype) + _pos_enc(
+        past_n.shape[1], cfg.hidden, device=past_n.device)
     for layer in params["enc"]:
         h = _ln(layer["ln1"], x)
-        x = x + _attention(layer["attn"], h, h)
-        x = x + _mlp(layer["mlp"], _ln(layer["ln2"], x))
+        x = x + _attention(layer["attn"], h, h, compute_dtype=compute_dtype)
+        x = x + _mlp(layer["mlp"], _ln(layer["ln2"], x), compute_dtype)
     return x
 
 
@@ -200,37 +221,39 @@ def _peer_window_mask(cfg, kt, *, tq=None, t=None, q_offset=0, device="cpu"):
 
 
 def _decoder_block(layer, x, enc_mem, peer_mem, peer_valid, *, causal_mask,
-                   self_kv=None, cross_kv=None, peer_kv=None, peer_tmask=None, peer_dv=None):
+                   self_kv=None, cross_kv=None, peer_kv=None, peer_tmask=None, peer_dv=None,
+                   compute_dtype=torch.float32):
     """One decoder layer on (B, Tq, H). With ``self_kv`` = (k, v) the self
     keys and values come from the cache; ``cross_kv``/``peer_kv`` are the
     precomputed encoder and peer K, V of the decode; ``peer_dv`` (B, H) the
     layer's anchor correction, subtracted from the peer-attend output."""
+    cd = compute_dtype
     h_in = _ln(layer["ln1"], x)
     if self_kv is None:
-        x = x + _attention(layer["self_attn"], h_in, h_in, mask=causal_mask)
+        x = x + _attention(layer["self_attn"], h_in, h_in, mask=causal_mask, compute_dtype=cd)
     else:
-        q = _split_heads(h_in @ layer["self_attn"]["wq"])
-        x = x + _attention_qkv(layer["self_attn"], q, *self_kv, mask=causal_mask)
+        q = _split_heads(_mm(h_in, layer["self_attn"]["wq"], cd))
+        x = x + _attention_qkv(layer["self_attn"], q, *self_kv, mask=causal_mask, compute_dtype=cd)
     h2 = _ln(layer["ln2"], x)
     if cross_kv is None:
-        x = x + _attention(layer["cross_attn"], h2, enc_mem)
+        x = x + _attention(layer["cross_attn"], h2, enc_mem, compute_dtype=cd)
     else:
-        q = _split_heads(h2 @ layer["cross_attn"]["wq"])
-        x = x + _attention_qkv(layer["cross_attn"], q, *cross_kv)
+        q = _split_heads(_mm(h2, layer["cross_attn"]["wq"], cd))
+        x = x + _attention_qkv(layer["cross_attn"], q, *cross_kv, compute_dtype=cd)
     if peer_mem is not None:
         q_in = _ln(layer["ln3"], x)
         mask3 = peer_valid[:, None, :]
         if peer_tmask is not None:
             mask3 = mask3 & peer_tmask[None]  # (B, Tq, KT)
         if peer_kv is None:
-            pa = _attention(layer["peer_attn"], q_in, peer_mem, mask=mask3)
+            pa = _attention(layer["peer_attn"], q_in, peer_mem, mask=mask3, compute_dtype=cd)
         else:
-            qp = _split_heads(q_in @ layer["peer_attn"]["wq"])
-            pa = _attention_qkv(layer["peer_attn"], qp, *peer_kv, mask=mask3, v_shift=peer_dv)
+            qp = _split_heads(_mm(q_in, layer["peer_attn"]["wq"], cd))
+            pa = _attention_qkv(layer["peer_attn"], qp, *peer_kv, mask=mask3, v_shift=peer_dv, compute_dtype=cd)
         # positions with no attendable peer token gate to exactly 0
         has_peer = mask3.any(dim=-1)[..., None]
         x = x + torch.where(has_peer, pa, 0.0)
-    return x + _mlp(layer["mlp"], _ln(layer["ln4"], x))
+    return x + _mlp(layer["mlp"], _ln(layer["ln4"], x), cd)
 
 
 def draw_noise(gen: torch.Generator, shape) -> torch.Tensor:
@@ -267,7 +290,8 @@ def _parallel_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0, future_n, *
     return (x @ params["out_proj"]["w"] + params["out_proj"]["b"]).float()
 
 
-def _ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0, *, peer_gid=None, peer_dv=None):
+def _ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0, *, peer_gid=None, peer_dv=None,
+               compute_dtype=torch.float32):
     """KV-cached decode: encoder and peer K, V projected once, before the
     loop; then one token a step through the decoder stack, its output fed
     back. The plain version of ``ops.transformer_decode.fused_ar_decode``.
@@ -279,13 +303,22 @@ def _ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0, *, peer_gid=None,
     ``peer_valid`` (G, KT) hold G peer sets; each group's K, V is projected
     once and row b attends group ``peer_gid[b]``'s, with ``peer_dv`` (B, L,
     H), when given, subtracted from layer l's peer-attend output before
-    ``wo`` (the per-row anchor correction)."""
+    ``wo`` (the per-row anchor correction).
+
+    In the bf16 ``compute_dtype``, the plain version of the decode kernel's
+    bf16 tier: the products' operands rounded (:func:`_mm`), the cross, peer
+    and self K/V rounded as stored, the rest f32."""
+    cd = compute_dtype
+
+    def kv_of(mem, w):  # the K or V of a memory, as stored
+        return _split_heads(_round(_mm(mem, w, cd), cd))
+
     kv = []
     for layer in params["dec"]:
         ca, pa = layer["cross_attn"], layer["peer_attn"]
-        ck, cv = _split_heads(enc_mem @ ca["wk"]), _split_heads(enc_mem @ ca["wv"])
+        ck, cv = kv_of(enc_mem, ca["wk"]), kv_of(enc_mem, ca["wv"])
         if peer_mem is not None:
-            pk, pv = _split_heads(peer_mem @ pa["wk"]), _split_heads(peer_mem @ pa["wv"])
+            pk, pv = kv_of(peer_mem, pa["wk"]), kv_of(peer_mem, pa["wv"])
             if peer_gid is not None:
                 pk, pv = pk[peer_gid], pv[peer_gid]
         else:
@@ -297,22 +330,22 @@ def _ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0, *, peer_gid=None,
     caches = [([], []) for _ in params["dec"]]
     y, ys = y0, []
     for t in range(cfg.h_out):
-        x = (y @ params["in_proj"] + pos_all[t])[:, None, :]
+        x = (_mm(y, params["in_proj"], cd) + pos_all[t])[:, None, :]
         tmask = None
         if peer_mem is not None and cfg.peer_window > 0:
             tmask = _peer_window_mask(cfg, peer_mem.shape[1], t=t, device=y0.device)[None, :]
         for l, (layer, (ck, cv, pk, pv), (ks, vs)) in enumerate(zip(params["dec"], kv, caches)):
             h_in = _ln(layer["ln1"], x)
-            ks.append(_split_heads(h_in @ layer["self_attn"]["wk"]))
-            vs.append(_split_heads(h_in @ layer["self_attn"]["wv"]))
+            ks.append(kv_of(h_in, layer["self_attn"]["wk"]))
+            vs.append(kv_of(h_in, layer["self_attn"]["wv"]))
             x = _decoder_block(
                 layer, x, enc_mem, peer_mem, peer_valid, causal_mask=None,
                 self_kv=(torch.cat(ks, dim=2), torch.cat(vs, dim=2)), cross_kv=(ck, cv),
                 peer_kv=None if pk is None else (pk, pv), peer_tmask=tmask,
-                peer_dv=None if peer_dv is None else peer_dv[:, l],
+                peer_dv=None if peer_dv is None else peer_dv[:, l], compute_dtype=cd,
             )
         x = _ln(params["final_ln"], x)
-        y = (x[:, 0] @ params["out_proj"]["w"] + params["out_proj"]["b"]).to(cfg.dtype)
+        y = (_mm(x[:, 0], params["out_proj"]["w"], cd) + params["out_proj"]["b"]).to(cfg.dtype)
         ys.append(y)
     return torch.stack(ys, dim=1).float()
 
@@ -361,7 +394,7 @@ def _train_encoder(params, cfg, past_n, compute_dtype):
     if compute_dtype != torch.float32:
         raise NotImplementedError(
             f"transformer training: only the exact f32 tier is ported, got compute_dtype={compute_dtype} "
-            f"(ROADMAP.md, slice I)"
+            f"(ROADMAP.md, slice I-b: --train-compute bfloat16)"
         )
     if encode_kernel_fits(past_n.shape[1]):
         return fused_encode_train(params, cfg, past_n.float().contiguous())
@@ -420,7 +453,7 @@ def serve_fused(
     group_mask: Optional[torch.Tensor] = None,
     peer_gid: Optional[torch.Tensor] = None,
     peer_anchor: Optional[torch.Tensor] = None,
-    compute_dtype=torch.float32,
+    compute_dtype=None,
 ) -> torch.Tensor:
     """Serving decode: the encoder on the ``fused_encode_tokens`` kernel
     where ``encode_kernel_fits`` (else the plain ``_encode``), the peer
@@ -442,24 +475,30 @@ def serve_fused(
     past the TPU's VMEM (``peer_shared_fits``) has no counterpart: the K/V
     lives in device memory, and past it the allocation raises.
 
-    Raising: per-row and grouped peers together, and a bf16
-    ``compute_dtype`` (ROADMAP.md slice I)."""
+    ``compute_dtype`` None resolves as JAX's does, by where the tensors
+    are: bf16 on the card (the accelerator; JAX's TPU default) and f32 on
+    the CPU. An explicit ``torch.float32`` keeps the exact tier on the card,
+    ``torch.bfloat16`` runs the bf16 tier's plain versions on the CPU. The
+    encoder runs the tier where it runs a kernel (T <= 64); the plain
+    ``_encode`` past it stays f32, as in JAX. δv is f32 in both tiers.
+
+    Raising: per-row and grouped peers together, and a ``compute_dtype``
+    other than f32 and bf16."""
     del context
     from ..ops.transformer_decode import fused_ar_decode, fused_ar_decode_shared
     from ..ops.transformer_encode import encode_kernel_fits, fused_encode_tokens
 
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"transformer.serve_fused: only the exact f32 tier is ported, got "
-            f"compute_dtype={compute_dtype} (ROADMAP.md, slice I)"
-        )
+    if compute_dtype is None:
+        compute_dtype = torch.bfloat16 if past_n.device.type == "cuda" else torch.float32
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"transformer.serve_fused serves in float32 or bfloat16, got {compute_dtype}")
     grouped = group_future_n is not None
     if grouped and other_future_n is not None:
         raise ValueError("pass per-row peers (other_future_n) or grouped peers (group_future_n), not both")
     if grouped != (peer_gid is not None) or (not grouped and (group_mask is not None or peer_anchor is not None)):
         raise ValueError("group_future_n and peer_gid come together; group_mask and peer_anchor need them")
     if encode_kernel_fits(past_n.shape[1]):
-        enc_mem = fused_encode_tokens(params, cfg, past_n)
+        enc_mem = fused_encode_tokens(params, cfg, past_n, compute_dtype=compute_dtype)
     else:
         enc_mem = _encode(params, cfg, past_n)
     y0 = past_n[:, -1, :].to(cfg.dtype).contiguous()
@@ -471,12 +510,13 @@ def serve_fused(
             dv = torch.stack([e @ layer["peer_attn"]["wv"].float() for layer in params["dec"]], dim=1)
         return fused_ar_decode_shared(params, cfg, enc_mem, y0, peer_gmem=gmem.float().contiguous(),
                                       peer_gvalid=gvalid.contiguous(), peer_gid=peer_gid.contiguous(),
-                                      peer_dv=dv)
+                                      peer_dv=dv, compute_dtype=compute_dtype)
     peer_mem = peer_valid = None
     if other_future_n is not None:
         peer_mem, peer_valid = _peer_tokens(params, cfg, other_future_n, other_mask)
         peer_mem, peer_valid = peer_mem.float().contiguous(), peer_valid.contiguous()
-    return fused_ar_decode(params, cfg, enc_mem, y0, peer_mem=peer_mem, peer_valid=peer_valid)
+    return fused_ar_decode(params, cfg, enc_mem, y0, peer_mem=peer_mem, peer_valid=peer_valid,
+                           compute_dtype=compute_dtype)
 
 
 def batch_extras(batch: Dict, anchor: torch.Tensor) -> Dict:

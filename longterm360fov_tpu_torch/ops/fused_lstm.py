@@ -11,16 +11,24 @@ Twins of ``longterm360fov_tpu.ops.fused_lstm``:
   mask-weighted mean of K peer encoders' hidden states at step t;
 * :func:`peer_context`: the lockstep tier's peer encoders, → ctx (B, T, C);
 * :func:`fused_encode`: an L-layer encoder over ``(B, T, D)`` from zero
-  state, returning only the final top-layer ``h`` (B, H).
+  state, returning only the final top-layer ``h`` (B, H);
+* :func:`fused_decode`: the T_out-step decoder alone, from given states
+  ``h0, c0`` (L, B, H) and first input ``y0`` (B, D), with an optional
+  static context (``seq2seq.decode_fused``);
+* :func:`fused_lstm_cell`: one LSTM step, ``(params, x, (h, c)) → (h, c)``,
+  the cell of ``cfg.cell == "pallas"`` (``models.cell.get_cell_fn``).
 
 The kernels live in ``csrc/fused_serve.cu``, whose header says what bounds
 them on Hopper and what their design does about that. Each wrapper runs its
 plain version (:func:`fused_serve_reference`, :func:`peer_context_reference`,
-:func:`fused_encode_reference`) on CPU tensors, and launches its kernel on
-CUDA tensors or raises. It never falls back. ``.launches`` counts each
-wrapper's kernel launches: ``fused_serve`` those of the no-context and
+:func:`fused_encode_reference`, :func:`fused_decode_reference`, and
+``models.cell.lstm_cell`` for the cell) on CPU tensors, and launches its
+kernel on CUDA tensors or raises. It never falls back. ``.launches`` counts
+each wrapper's kernel launches: ``fused_serve`` those of the no-context and
 static-context tiers, ``fused_serve_peers`` and ``peer_context`` the two of
-the lockstep tier.
+the lockstep tier. The TPU's cell and decode kernels have no VJP, so
+:func:`fused_lstm_cell` and :func:`fused_decode` raise on an input that
+requires grad, on both devices (:func:`refuse_grad`).
 """
 
 from __future__ import annotations
@@ -44,8 +52,12 @@ __all__ = [
     "peer_rows",
     "fused_encode",
     "fused_encode_reference",
+    "fused_decode",
+    "fused_decode_reference",
+    "fused_lstm_cell",
     "kernel_rows",
     "exact_f32_matmul",
+    "refuse_grad",
 ]
 
 MAX_LAYERS = 8  # csrc/fused_serve.cu MAX_LAYERS
@@ -57,10 +69,15 @@ _TR, _TJ = 8, 4  # rows and hidden units per thread
 def exact_f32_matmul():
     """f32 matrix products and convolutions in full f32 on the card: TF32
     keeps about three decimal digits, and 60 recurrent steps amplify that.
-    Process-wide flags: entry points (``cli.serve_bench``, ``chip_smoke.py``)
-    call this once; library functions do not."""
+    bf16 products accumulate in full f32 too (no reduced-precision
+    reductions in cuBLAS): the transformer's bf16 serving tier rounds the
+    operands of its K/V products to bf16 and sums in f32, as the JAX tier's
+    ``preferred_element_type=float32`` does. Process-wide flags: entry
+    points (the CLI's commands, ``chip_smoke.py``) call this once; library
+    functions do not."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def fused_serve_reference(
@@ -86,9 +103,16 @@ def fused_serve_reference(
     is that step's context. On the card it needs exact f32 products
     (:func:`exact_f32_matmul`) and raises under TF32."""
     _no_tf32(past_n, "fused_serve_reference")
-    states = _encode_states(enc_params, past_n)
-    y = past_n[:, -1]
     peers = None if peer_xs is None else _PeerSteps(peer_params, peer_xs, peer_w)
+    return _decode_steps(dec_params, proj_w, proj_b, _encode_states(enc_params, past_n), past_n[:, -1], t_out,
+                         context, peers)
+
+
+def _decode_steps(dec_params, proj_w, proj_b, states, y, t_out, context, peers=None):
+    """The decoder loop of the serve and decode kernels' plain versions, from
+    ``states`` (an (h, c) a layer) and the first input ``y``: per step the
+    layers on ``[y, ctx]``, then ``y = h_top @ proj_w + proj_b``, fed back
+    → (B, t_out, D)."""
     ys = []
     for t in range(t_out):
         ctx = peers.step(t) if peers is not None else context
@@ -101,6 +125,16 @@ def fused_serve_reference(
         y = inp @ proj_w + proj_b
         ys.append(y)
     return torch.stack(ys, dim=1)
+
+
+def fused_decode_reference(dec_params: Sequence[LSTMParams], proj_w: torch.Tensor, proj_b: torch.Tensor,
+                           h0: torch.Tensor, c0: torch.Tensor, y0: torch.Tensor, t_out: int,
+                           context=None) -> torch.Tensor:
+    """Plain PyTorch version of the decode kernel: the serve kernel's decoder
+    loop from ``h0, c0`` (L, B, H) and ``y0`` (B, D), with an optional
+    static ``context`` (B, C) → (B, t_out, D), step by step."""
+    _no_tf32(y0, "fused_decode_reference")
+    return _decode_steps(dec_params, proj_w, proj_b, list(zip(h0, c0)), y0, t_out, context)
 
 
 class _PeerSteps:
@@ -136,6 +170,15 @@ def peer_context_reference(peer_params: LSTMParams, peer_xs: torch.Tensor,
 def _no_tf32(t: torch.Tensor, name: str):
     if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(f"{name}: TF32 matmul is on; call exact_f32_matmul() first")
+
+
+def refuse_grad(tensors, name: str, instead: str = "models.transformer.apply"):
+    """The kernel has no backward (nor has the TPU kernel): an input that
+    requires grad raises on both devices, where grad is on."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward (nor has the TPU kernel): differentiate through {instead}"
+        )
 
 
 def _encode_states(params: Sequence[LSTMParams], xs: torch.Tensor):
@@ -250,7 +293,7 @@ def fused_serve(
         if compute_dtype != torch.float32 or _probe:
             raise NotImplementedError(
                 "fused_serve: the lockstep tier is ported in exact f32 only, with no "
-                "_probe modes (ROADMAP.md Queue 2 #1, the bf16 tier)"
+                "_probe modes (ROADMAP.md slice I-b, the bf16 tier)"
             )
         return fused_serve_peers(enc_params, dec_params, proj_w, proj_b, past_n, t_out,
                                  peer_params, peer_xs, peer_w)
@@ -259,7 +302,7 @@ def fused_serve(
     if compute_dtype != torch.float32:
         raise NotImplementedError(
             f"fused_serve: only the exact f32 tier is ported, got "
-            f"compute_dtype={compute_dtype} (ROADMAP.md, Queue 2 #1)"
+            f"compute_dtype={compute_dtype} (ROADMAP.md, slice I-b)"
         )
     if _probe:
         raise NotImplementedError(
@@ -411,7 +454,7 @@ def fused_encode(
     if compute_dtype != torch.float32:
         raise NotImplementedError(
             f"fused_encode: only the exact f32 tier is ported, got "
-            f"compute_dtype={compute_dtype} (ROADMAP.md Queue 2 #1, the bf16 tier)"
+            f"compute_dtype={compute_dtype} (ROADMAP.md slice I-b, the bf16 tier)"
         )
     if xs.dim() != 3 or min(xs.shape) < 1 or not params:
         raise ValueError(f"xs must be a non-empty (B, T, D) with >= 1 layer, got {tuple(xs.shape)}")
@@ -440,6 +483,98 @@ def fused_encode(
 
 
 fused_encode.launches = 0
+
+
+def fused_decode(
+    dec_params: Sequence[LSTMParams],
+    proj_w: torch.Tensor,
+    proj_b: torch.Tensor,
+    h0: torch.Tensor,  # (L, B, H) encoder final hidden per layer
+    c0: torch.Tensor,  # (L, B, H)
+    y0: torch.Tensor,  # (B, D) last observed position
+    t_out: int,
+    *,
+    context=None,  # (B, C) static context
+) -> torch.Tensor:
+    """Whole-horizon autoregressive decode from given states → (B, t_out, D)
+    f32, in one kernel launch: the serve kernel's decoder. Same shapes and
+    semantics as the JAX ``fused_decode`` (its ``tile_b`` is a TPU tiling
+    knob and has no counterpart). No backward, as the TPU kernel has none:
+    an input that requires grad raises on both devices."""
+    if h0.dim() != 3 or y0.dim() != 2 or min(h0.shape) < 1 or t_out < 1:
+        raise ValueError(f"expected h0, c0 (L, B, H), y0 (B, D) and t_out >= 1, got {tuple(h0.shape)}, "
+                         f"{tuple(y0.shape)} and {t_out}")
+    layers, batch, hidden = h0.shape
+    d = y0.shape[1]
+    ctx_dim = 0 if context is None else context.shape[-1]
+    if len(dec_params) != layers:
+        raise ValueError(f"{len(dec_params)} decoder layers and states of {layers}")
+    refuse_grad([h0, c0, y0, context, proj_w, proj_b, *[t for p in dec_params for t in p]], "fused_decode",
+                "models.seq2seq.apply")
+    expect = [(h0, (layers, batch, hidden)), (c0, (layers, batch, hidden)), (y0, (batch, d)),
+              (proj_w, (hidden, d)), (proj_b, (d,))]
+    for l, p in enumerate(dec_params):
+        in_l = d + ctx_dim if l == 0 else hidden
+        expect += [(p.w, (in_l + hidden, 4 * hidden)), (p.b, (4 * hidden,))]
+    if context is not None:
+        expect.append((context, (batch, ctx_dim)))
+    _check_tensors(expect, y0.device)
+    # the kernel reads c0, W and b as 16-byte vectors, the rest by element
+    if not _on_card(y0, [c0, *[t for p in dec_params for t in p]], "fused_decode"):
+        return fused_decode_reference(dec_params, proj_w, proj_b, h0, c0, y0, t_out, context)
+    rows = kernel_rows(hidden, layers, d, ctx_dim)
+    out = torch.empty((batch, t_out, d), device=y0.device, dtype=torch.float32)
+    with torch.cuda.device(y0.device):
+        err = _library().fused_decode_f32(
+            h0.data_ptr(), c0.data_ptr(), y0.data_ptr(), None if context is None else context.data_ptr(),
+            out.data_ptr(), _ptrs([p.w for p in dec_params]), _ptrs([p.b for p in dec_params]),
+            proj_w.data_ptr(), proj_b.data_ptr(), batch, t_out, d, ctx_dim, hidden, layers, rows,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "fused_decode")
+    fused_decode.launches += 1
+    return out
+
+
+fused_decode.launches = 0
+
+
+def fused_lstm_cell(params: LSTMParams, x: torch.Tensor, state):
+    """Drop-in for ``models.cell.lstm_cell`` (the JAX signature: ``(params,
+    x, (h, c)) → (h, c)``): one LSTM step, in one kernel launch on CUDA
+    tensors, ``lstm_cell`` itself on CPU tensors. f32 only (the bf16 tiers
+    are slice I-b, ``--bf16``). No backward, as the TPU kernel has none: an
+    input that requires grad raises on both devices."""
+    h, c = state
+    if x.dim() != 2 or h.dim() != 2 or min(*x.shape, *h.shape) < 1:
+        raise ValueError(f"expected x (B, D) and h, c (B, H), got {tuple(x.shape)} and {tuple(h.shape)}")
+    batch, d_in = x.shape
+    hidden = h.shape[1]
+    refuse_grad([x, h, c, params.w, params.b], "fused_lstm_cell", "cell='xla' (models.cell.lstm_cell)")
+    for t in (x, h, c, params.w, params.b):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_lstm_cell takes float32 tensors, got {t.dtype}: the bf16 tiers are "
+                            f"ROADMAP.md slice I-b (--bf16)")
+    _check_tensors([(x, (batch, d_in)), (h, (batch, hidden)), (c, (batch, hidden)),
+                    (params.w, (d_in + hidden, 4 * hidden)), (params.b, (4 * hidden,))], x.device)
+    # the kernel reads c, W and b as 16-byte vectors, x and h by element
+    if not _on_card(x, [c, params.w, params.b], "fused_lstm_cell"):
+        return lstm_cell(params, x, state)
+    rows = kernel_rows(hidden, 1, d_in)
+    h_out = torch.empty((batch, hidden), device=x.device, dtype=torch.float32)
+    c_out = torch.empty_like(h_out)
+    with torch.cuda.device(x.device):
+        err = _library().lstm_cell_f32(
+            x.data_ptr(), h.data_ptr(), c.data_ptr(), params.w.data_ptr(), params.b.data_ptr(),
+            h_out.data_ptr(), c_out.data_ptr(), batch, d_in, hidden, rows,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "fused_lstm_cell")
+    fused_lstm_cell.launches += 1
+    return h_out, c_out
+
+
+fused_lstm_cell.launches = 0
 
 
 def _on_card(x: torch.Tensor, tensors, name: str) -> bool:
@@ -476,7 +611,10 @@ def _library() -> ctypes.CDLL:
     lib.fused_serve_f32.argtypes = [vp, vp, vp, arr, arr, arr, arr, vp, vp] + [i32] * 9 + [vp]
     lib.fused_encode_f32.argtypes = [vp, vp, arr, arr] + [i32] * 6 + [vp]
     lib.peer_context_f32.argtypes = [vp] * 5 + [i32] * 6 + [vp]
-    for f in (lib.fused_serve_f32, lib.fused_encode_f32, lib.peer_context_f32):
+    lib.fused_decode_f32.argtypes = [vp] * 5 + [arr, arr, vp, vp] + [i32] * 7 + [vp]
+    lib.lstm_cell_f32.argtypes = [vp] * 7 + [i32] * 4 + [vp]
+    for f in (lib.fused_serve_f32, lib.fused_encode_f32, lib.peer_context_f32, lib.fused_decode_f32,
+              lib.lstm_cell_f32):
         f.restype = i32
     lib.fused_serve_error_string.argtypes = [i32]
     lib.fused_serve_error_string.restype = ctypes.c_char_p

@@ -1,8 +1,9 @@
-"""Transformer autoregressive decode, f32 tiers: the hand-written CUDA
-kernel and its plain PyTorch version.
+"""Transformer autoregressive decode, in its f32 and bf16 tiers: the
+hand-written CUDA kernel and its plain PyTorch version.
 
-Twin of ``longterm360fov_tpu.ops.transformer_decode.fused_ar_decode`` in
-its f32 tiers: no peers; per-row peer memory; and group-shared peer memory
+Twin of ``longterm360fov_tpu.ops.transformer_decode.fused_ar_decode``, each
+of its tiers in f32 and bf16: no peers; per-row peer memory; and
+group-shared peer memory
 (``peer_gmem``/``peer_gvalid``/``peer_gid``, with the per-row anchor
 correction ``peer_dv``); each with ``peer_pool`` "none" (K·T_out tokens) or
 "mean" (T_out tokens), with or without the peer window
@@ -13,17 +14,22 @@ projection and the feedback) → ``(B, T_out, D)`` f32.
 
 * The plain version is ``models.transformer._ar_decode`` given the same
   encoder memory and peer memory (per row, or per group with the row's
-  group id and δv).
+  group id and δv) and the tier's ``compute_dtype``.
 * :func:`fused_ar_decode`, the wrapper: on CPU tensors it runs the plain
   version; on CUDA tensors it projects the cross and peer K/V once with
-  ``torch.matmul`` in exact f32 (JAX's ``project_kv`` runs outside the
-  Pallas kernel too; grouped peers once a group) and launches
-  ``csrc/transformer_decode.cu``, whose header says what bounds it and what
-  its design does about that, or raises: on an input that requires grad
-  (no backward, on both devices), on a non-contiguous input, on a type or
-  shape it does not take, on a group id outside ``[0, G)``. It never falls
-  back. ``.launches`` counts its kernel launches in the per-row tiers,
-  :func:`fused_ar_decode_shared` ``.launches`` those of the shared tier.
+  ``torch.matmul`` (JAX's ``project_kv`` runs outside the Pallas kernel
+  too; grouped peers once a group): in exact f32, or in the bf16 tier from
+  bf16 operands with f32 sums into bf16 K/V, the weights converted to bf16
+  for the call; then it launches ``csrc/transformer_decode.cu``, whose
+  header says what bounds it and what its design does about that, or
+  raises: on an input that requires grad (no backward, on both devices), on
+  a non-contiguous input, on a type or shape it does not take, on a group
+  id outside ``[0, G)``, on TF32 products or, in the bf16 tier, on cuBLAS's
+  reduced-precision bf16 reductions (``fused_lstm.exact_f32_matmul`` turns
+  both off). It never falls back. ``.launches`` counts its f32 kernel
+  launches in the per-row tiers, :func:`fused_ar_decode_shared`
+  ``.launches`` those of the f32 shared tier, :func:`fused_ar_decode_bf16`
+  ``.launches`` the bf16 launches of every tier.
 
 The model gates peer attention per position, the TPU kernel per row; the
 CUDA kernel follows the model (a position whose window holds no valid token
@@ -33,7 +39,9 @@ allocation raises. So the TPU's streamed and chunked per-row tiers, which
 stage peer K/V through VMEM and compute the per-row function, have the
 per-row kernel as their counterpart. The group id is read per row: any
 order of ``peer_gid`` is right, where the TPU kernel reads it per 128-row
-tile and needs group-pure tiles. bf16 (slice I) is not ported.
+tile and needs group-pure tiles. The JAX wrapper's default
+``compute_dtype`` is bf16; this one keeps f32 as the default of its own
+argument, and ``transformer.serve_fused`` picks bf16 on the card.
 """
 
 from __future__ import annotations
@@ -47,9 +55,9 @@ from ..models import transformer
 from ..params import tree_leaves
 from . import _build
 from .fused_lstm import _no_tf32
-from .transformer_encode import HIDDEN, MAX_LAYERS, check_card_tensors, layer_pointers, refuse_grad
+from .transformer_encode import HIDDEN, MAX_LAYERS, check_card_tensors, check_tier, layer_pointers, refuse_grad
 
-__all__ = ["fused_ar_decode", "fused_ar_decode_shared", "MAX_D"]
+__all__ = ["fused_ar_decode", "fused_ar_decode_shared", "fused_ar_decode_bf16", "MAX_D"]
 
 MAX_D = 4  # csrc/transformer_decode.cu MAX_D: coordinates a token
 
@@ -59,16 +67,20 @@ _DEC_WEIGHTS = tuple((sub, leaf) for sub in ("ln1", "ln2", "ln3", "ln4") for lea
     ("mlp", leaf) for leaf in ("w1", "b1", "w2", "b2"))
 
 
-def _layer_tensors(layer, ck, cv, pk, pv):
-    """A layer's tensors in the kernel's DecPtr order, with its projected
-    cross K, V and peer K, V (None without peers)."""
+def _layer_tensors(layer, ck, cv, pk, pv, dtype):
+    """A layer's tensors in the kernel's DecPtr order, the matrices in the
+    tier's ``dtype``, with its projected cross K, V and peer K, V (None
+    without peers)."""
     sa, ca, pa, m = layer["self_attn"], layer["cross_attn"], layer["peer_attn"], layer["mlp"]
 
     def ln(name):
         return [layer[name]["scale"], layer[name]["bias"]]
 
-    return [*ln("ln1"), sa["wq"], sa["wk"], sa["wv"], sa["wo"], *ln("ln2"), ca["wq"], ca["wo"], ck, cv,
-            *ln("ln3"), pa["wq"], pa["wo"], pk, pv, *ln("ln4"), m["w1"], m["b1"], m["w2"], m["b2"]]
+    def w(*mats):
+        return [t.to(dtype) for t in mats]
+
+    return [*ln("ln1"), *w(sa["wq"], sa["wk"], sa["wv"], sa["wo"]), *ln("ln2"), *w(ca["wq"], ca["wo"]), ck, cv,
+            *ln("ln3"), *w(pa["wq"], pa["wo"]), pk, pv, *ln("ln4"), *w(m["w1"]), m["b1"], *w(m["w2"]), m["b2"]]
 
 
 def _check_groups(batch, layers, h, peer_gmem, peer_gvalid, peer_gid, peer_dv):
@@ -103,13 +115,10 @@ def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, pee
     ``peer_gmem`` (G, KT, H), ``peer_gvalid`` (G, KT) bool, ``peer_gid``
     (B,) int row → group, and optionally ``peer_dv`` (B, L, H) f32, each
     row's anchor correction. One kernel launch on the card (the plain
-    ``transformer._ar_decode`` on CPU tensors). The bf16 ``compute_dtype``
-    raises (ROADMAP.md, slice I)."""
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"fused_ar_decode: only the exact f32 tier is ported, got "
-            f"compute_dtype={compute_dtype} (ROADMAP.md, slice I)"
-        )
+    ``transformer._ar_decode`` on CPU tensors), in the tier of
+    ``compute_dtype``: float32 (exact) or bfloat16. The inputs are f32 in
+    both."""
+    check_tier(compute_dtype, "fused_ar_decode")
     if (peer_mem is None) != (peer_valid is None):
         raise ValueError("peer_mem and peer_valid come together")
     if peer_gmem is not None and peer_mem is not None:
@@ -128,11 +137,15 @@ def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, pee
     if enc_mem.device.type == "cpu":
         if grouped:
             return transformer._ar_decode(params, cfg, enc_mem, peer_gmem, peer_gvalid, y0,
-                                          peer_gid=peer_gid.long(), peer_dv=peer_dv)
-        return transformer._ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0)
+                                          peer_gid=peer_gid.long(), peer_dv=peer_dv, compute_dtype=compute_dtype)
+        return transformer._ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0, compute_dtype=compute_dtype)
     if enc_mem.device.type != "cuda":
         raise ValueError(f"fused_ar_decode runs on cpu or cuda, not {enc_mem.device}")
     _no_tf32(enc_mem, "fused_ar_decode")
+    bf16 = compute_dtype == torch.bfloat16
+    if bf16 and torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+        raise RuntimeError("fused_ar_decode: the bf16 tier sums its K/V products in f32, and cuBLAS's "
+                           "reduced-precision bf16 reductions are on; call exact_f32_matmul() first")
     batch, t_in, h = enc_mem.shape
     d, t_out, dev = y0.shape[1], cfg.h_out, enc_mem.device
     if h != HIDDEN or cfg.hidden != HIDDEN:
@@ -167,19 +180,24 @@ def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, pee
     check_card_tensors([enc_mem, y0, *glob] + ([peer_mem] if kt else []), dev, "fused_ar_decode",
                        vectors=weights + ([] if peer_dv is None else [peer_dv]))
     # the static cross and peer K/V, projected once for the rollout (grouped
-    # peers: once a group)
+    # peers: once a group), stored in the tier's type; in bf16 from bf16
+    # operands, summed in f32 by cuBLAS and rounded once, as JAX's project_kv
+    st = compute_dtype
+    enc_st, peer_st = enc_mem.to(st), (peer_mem.to(st) if kt else None)
     tensors = []
     for layer in layers:
         ca, pa = layer["cross_attn"], layer["peer_attn"]
-        peer_kv = (peer_mem @ pa["wk"], peer_mem @ pa["wv"]) if kt else (None, None)
-        tensors += _layer_tensors(layer, enc_mem @ ca["wk"], enc_mem @ ca["wv"], *peer_kv)
+        peer_kv = (peer_st @ pa["wk"].to(st), peer_st @ pa["wv"].to(st)) if kt else (None, None)
+        tensors += _layer_tensors(layer, enc_st @ ca["wk"].to(st), enc_st @ ca["wv"].to(st), *peer_kv, st)
     ptrs = (ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr() for t in tensors])
     pos = transformer._pos_enc(t_out, h, device=dev)
-    self_kv = torch.empty((2, len(layers), batch, t_out, h), device=dev, dtype=torch.float32)
+    glob[0], glob[1] = glob[0].to(st), glob[1].to(st)  # in_proj and out_proj's matrix
+    self_kv = torch.empty((2, len(layers), batch, t_out, h), device=dev, dtype=st)
     out = torch.empty((batch, t_out, d), device=dev, dtype=torch.float32)
     seg = kt if cfg.peer_pool == "mean" else t_out
+    lib = _library()
     with torch.cuda.device(dev):
-        err = _library().transformer_decode_f32(
+        err = (lib.transformer_decode_bf16 if bf16 else lib.transformer_decode_f32)(
             y0.data_ptr(), peer_valid.data_ptr() if kt else None, None if gid is None else gid.data_ptr(),
             None if peer_dv is None else peer_dv.data_ptr(), self_kv.data_ptr(), out.data_ptr(),
             ptrs, *[t.data_ptr() for t in glob], pos.data_ptr(),
@@ -191,7 +209,7 @@ def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, pee
             f"transformer_decode kernel launch failed: "
             f"{_library().transformer_decode_error_string(err).decode()} (cuda error {err})"
         )
-    (fused_ar_decode_shared if grouped else fused_ar_decode).launches += 1
+    (fused_ar_decode_bf16 if bf16 else fused_ar_decode_shared if grouped else fused_ar_decode).launches += 1
     return out
 
 
@@ -210,13 +228,24 @@ def fused_ar_decode_shared(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor,
 fused_ar_decode_shared.launches = 0
 
 
+def fused_ar_decode_bf16(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, **peers) -> torch.Tensor:
+    """The bf16 tier: :func:`fused_ar_decode` with ``compute_dtype``
+    bfloat16, per-row or grouped peers as ``peers`` gives them. Its kernel
+    launches, in every tier, count here, in ``.launches``."""
+    return fused_ar_decode(params, cfg, enc_mem, y0, compute_dtype=torch.bfloat16, **peers)
+
+
+fused_ar_decode_bf16.launches = 0
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The kernel's library, built at first use and loaded once."""
     lib = _build.load("transformer_decode")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.transformer_decode_f32.argtypes = [vp] * 6 + [ctypes.POINTER(vp)] + [vp] * 6 + [i32] * 8 + [vp]
-    lib.transformer_decode_f32.restype = i32
+    for f in (lib.transformer_decode_f32, lib.transformer_decode_bf16):
+        f.argtypes = [vp] * 6 + [ctypes.POINTER(vp)] + [vp] * 6 + [i32] * 8 + [vp]
+        f.restype = i32
     lib.transformer_decode_error_string.argtypes = [i32]
     lib.transformer_decode_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,20 +1,24 @@
 """Transformer encoder: the hand-written CUDA kernel and its plain PyTorch
-version.
+version, in the f32 and bf16 tiers.
 
 Twin of ``longterm360fov_tpu.ops.transformer_encode``:
 ``past_n (B, T, D)`` → ``in_proj`` + positional encoding, then L pre-LN
 encoder layers (4-head bidirectional self-attention over the T tokens,
 tanh-GELU MLP) → ``enc_mem (B, T, H)`` f32.
 
-* The plain version is ``models.transformer._encode``.
+* The plain version is ``models.transformer._encode`` with the tier's
+  ``compute_dtype``: in bf16 every product's two operands rounded to bf16
+  and summed in f32, as the JAX tier's.
 * :func:`fused_encode_tokens`, the wrapper: on CPU tensors it runs the plain
-  version; on CUDA tensors it launches ``csrc/transformer_encode.cu``, whose
-  header says what bounds it and what its design does about that, or
-  raises: on an input that requires grad (the kernel has no backward; train
-  through ``apply``'s parallel pass, as JAX does; this one raises on the CPU
-  too), on a non-contiguous input, and on a type or shape it does not take.
-  It never falls back.
-  ``.launches`` counts its kernel launches.
+  version of the requested tier; on CUDA tensors it launches
+  ``csrc/transformer_encode.cu`` (the bf16 tier with in_proj and the layers'
+  matrices converted to bf16 for the call), whose header says what bounds
+  it and what its design does about that, or raises: on an input that
+  requires grad (the kernel has no backward; train through ``apply``'s
+  parallel pass, as JAX does; this one raises on the CPU too), on a
+  non-contiguous input, and on a type or shape it does not take. It never
+  falls back. ``.launches`` counts its f32 kernel launches,
+  :func:`fused_encode_tokens_bf16` ``.launches`` the bf16 tier's.
 
 The routing threshold :func:`encode_kernel_fits` is JAX's T <= 64, a
 compile limit of the TPU toolchain, not a property of this card; the kernel
@@ -31,10 +35,14 @@ import torch
 from ..models import transformer
 from ..params import tree_leaves
 from . import _build
+from .fused_lstm import refuse_grad
 
-__all__ = ["fused_encode_tokens", "encode_kernel_fits", "layer_pointers", "check_card_tensors", "refuse_grad"]
+__all__ = ["fused_encode_tokens", "fused_encode_tokens_bf16", "encode_kernel_fits", "layer_pointers",
+           "stored_pointers", "check_card_tensors", "check_tier", "refuse_grad", "TIERS"]
 
 MAX_LAYERS = 8  # csrc/transformer_encode.cu MAX_LAYERS
+TIERS = (torch.float32, torch.bfloat16)  # the compute dtypes of the serving kernels
+_MATRICES = ("wq", "wk", "wv", "wo", "w1", "w2")  # stored in the tier's type; LN and biases stay f32
 HIDDEN = 128  # the kernels take the width of every preset only
 _MAX_FUSED_T = 64  # JAX's routing threshold; one block's 64 token rows
 
@@ -65,6 +73,21 @@ def layer_pointers(layers, leaves, h: int):
     return tensors, (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def stored_pointers(tensors, leaves, dtype):
+    """The kernel's pointer table of ``layer_pointers``' tensors: the
+    matrices in ``dtype`` (converted copies in the bf16 tier), the LN
+    parameters and biases f32 → (tensors, ctypes array). ``leaves``: the
+    (sub, leaf) names of one layer, in the table's order."""
+    names = [leaf for _, leaf in leaves] * (len(tensors) // len(leaves))
+    out = [t.to(dtype) if leaf in _MATRICES else t for t, leaf in zip(tensors, names)]
+    return out, (ctypes.c_void_p * len(out))(*[t.data_ptr() for t in out])
+
+
+def check_tier(compute_dtype, name: str):
+    if compute_dtype not in TIERS:
+        raise ValueError(f"{name} computes in float32 or bfloat16, got {compute_dtype}")
+
+
 def check_card_tensors(tensors, device, name: str, *, vectors=()):
     """Every tensor the kernel reads: f32, on ``device`` and contiguous;
     those of ``vectors``, which it reads as 16-byte vectors, 16-byte
@@ -80,31 +103,18 @@ def check_card_tensors(tensors, device, name: str, *, vectors=()):
         raise ValueError(f"{name} reads the weights as 16-byte vectors: they must be 16-byte aligned")
 
 
-def refuse_grad(tensors, name: str):
-    """The kernels have no backward (nor have the TPU kernels): an input that
-    requires grad raises on both devices, where grad is on."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} has no backward (nor has the TPU kernel): differentiate through "
-            f"models.transformer.apply"
-        )
-
-
 def fused_encode_tokens(params, cfg, past_n: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
     """Encoder → enc_mem (B, T, H) f32, in one kernel launch on the card (the
-    plain ``transformer._encode`` on CPU tensors). The bf16 ``compute_dtype``
-    raises (ROADMAP.md, slice I)."""
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"fused_encode_tokens: only the exact f32 tier is ported, got "
-            f"compute_dtype={compute_dtype} (ROADMAP.md, slice I)"
-        )
+    plain ``transformer._encode`` on CPU tensors), in the tier of
+    ``compute_dtype``: float32 (exact) or bfloat16. The parameters are the
+    model's f32 tree in both."""
+    check_tier(compute_dtype, "fused_encode_tokens")
     if past_n.dim() != 3 or min(past_n.shape) < 1:
         raise ValueError(f"past_n must be a non-empty (B, T, D), got {tuple(past_n.shape)}")
     refuse_grad([past_n, *tree_leaves({"in_proj": params["in_proj"], "enc": params["enc"]})],
                 "fused_encode_tokens")
     if past_n.device.type == "cpu":
-        return transformer._encode(params, cfg, past_n)
+        return transformer._encode(params, cfg, past_n, compute_dtype)
     if past_n.device.type != "cuda":
         raise ValueError(f"fused_encode_tokens runs on cpu or cuda, not {past_n.device}")
     batch, t, d = past_n.shape
@@ -117,13 +127,17 @@ def fused_encode_tokens(params, cfg, past_n: torch.Tensor, *, compute_dtype=torc
         raise ValueError(f"the kernel takes 1..{MAX_LAYERS} layers, got {len(layers)}")
     if tuple(params["in_proj"].shape) != (d, HIDDEN):
         raise ValueError(f"in_proj must be ({d}, {HIDDEN}), got {tuple(params['in_proj'].shape)}")
-    tensors, ptrs = layer_pointers(layers, _ENC_LEAVES, HIDDEN)
+    tensors, _ = layer_pointers(layers, _ENC_LEAVES, HIDDEN)
     pos = transformer._pos_enc(t, HIDDEN, device=past_n.device)
     check_card_tensors([past_n, params["in_proj"], pos], past_n.device, "fused_encode_tokens", vectors=tensors)
+    bf16 = compute_dtype == torch.bfloat16
+    tensors, ptrs = stored_pointers(tensors, _ENC_LEAVES, compute_dtype)
+    w_in = params["in_proj"].to(compute_dtype)
     enc = torch.empty((batch, t, HIDDEN), device=past_n.device, dtype=torch.float32)
+    lib = _library()
     with torch.cuda.device(past_n.device):
-        err = _library().transformer_encode_f32(
-            past_n.data_ptr(), enc.data_ptr(), ptrs, params["in_proj"].data_ptr(), pos.data_ptr(),
+        err = (lib.transformer_encode_bf16 if bf16 else lib.transformer_encode_f32)(
+            past_n.data_ptr(), enc.data_ptr(), ptrs, w_in.data_ptr(), pos.data_ptr(),
             batch, len(layers), t, d, torch.cuda.current_stream().cuda_stream,
         )
     if err:
@@ -131,11 +145,20 @@ def fused_encode_tokens(params, cfg, past_n: torch.Tensor, *, compute_dtype=torc
             f"transformer_encode kernel launch failed: "
             f"{_library().transformer_encode_error_string(err).decode()} (cuda error {err})"
         )
-    fused_encode_tokens.launches += 1
+    (fused_encode_tokens_bf16 if bf16 else fused_encode_tokens).launches += 1
     return enc
 
 
 fused_encode_tokens.launches = 0
+
+
+def fused_encode_tokens_bf16(params, cfg, past_n: torch.Tensor) -> torch.Tensor:
+    """The bf16 tier: :func:`fused_encode_tokens` with ``compute_dtype``
+    bfloat16. Its kernel launches count here, in ``.launches``."""
+    return fused_encode_tokens(params, cfg, past_n, compute_dtype=torch.bfloat16)
+
+
+fused_encode_tokens_bf16.launches = 0
 
 
 @functools.cache
@@ -143,8 +166,9 @@ def _library() -> ctypes.CDLL:
     """The kernel's library, built at first use and loaded once."""
     lib = _build.load("transformer_encode")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.transformer_encode_f32.argtypes = [vp, vp, ctypes.POINTER(vp), vp, vp] + [i32] * 4 + [vp]
-    lib.transformer_encode_f32.restype = i32
+    for f in (lib.transformer_encode_f32, lib.transformer_encode_bf16):
+        f.argtypes = [vp, vp, ctypes.POINTER(vp), vp, vp] + [i32] * 4 + [vp]
+        f.restype = i32
     lib.transformer_encode_error_string.argtypes = [i32]
     lib.transformer_encode_error_string.restype = ctypes.c_char_p
     return lib

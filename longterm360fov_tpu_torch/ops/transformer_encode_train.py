@@ -106,7 +106,7 @@ def _check(cfg, past_n, in_proj, leaves, compute_dtype=torch.float32):
     if compute_dtype != torch.float32:
         raise NotImplementedError(
             f"fused_encode_train: only the exact f32 tier is ported, got compute_dtype={compute_dtype} "
-            f"(ROADMAP.md, slice I)"
+            f"(ROADMAP.md, slice I-b: --train-compute bfloat16)"
         )
     if past_n.dim() != 3 or min(past_n.shape) < 1:
         raise ValueError(f"past_n must be a non-empty (B, T, D), got {tuple(past_n.shape)}")

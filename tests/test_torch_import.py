@@ -46,3 +46,25 @@ def test_port_imports_without_jax():
     names = names.strip().split(",")
     for mod in _TRAIN_SLICE + _CROSS_USER_SLICE + _PEER_ALIGN_SLICE + _FUSION_SLICE + _TRANSFORMER_SLICE:
         assert f"longterm360fov_tpu_torch.{mod}" in names
+
+
+# slice I-a adds entry points to existing modules: the kernel cell, the decode
+# kernel, the transformer's bf16 tiers
+_SLICE_I_A = (("models.cell", "get_cell_fn"), ("models.seq2seq", "decode_fused"),
+              ("ops.fused_lstm", "fused_lstm_cell"), ("ops.fused_lstm", "fused_decode"),
+              ("ops.transformer_encode", "fused_encode_tokens_bf16"),
+              ("ops.transformer_decode", "fused_ar_decode_bf16"))
+
+
+def test_slice_entry_points_import_without_jax():
+    probe = "\n".join([
+        "import importlib, sys",
+        "for blocked in ('jax', 'jaxlib', 'longterm360fov_tpu'):",
+        "    sys.modules[blocked] = None",
+        f"for mod, attr in {_SLICE_I_A!r}:",
+        "    getattr(importlib.import_module('longterm360fov_tpu_torch.' + mod), attr)",
+        "print('ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -13,7 +13,7 @@ import torch
 
 from longterm360fov_tpu_torch import oracle
 from longterm360fov_tpu_torch.models import seq2seq, transformer
-from longterm360fov_tpu_torch.models.cell import LSTMParams
+from longterm360fov_tpu_torch.models.cell import LSTMParams, lstm_cell
 from longterm360fov_tpu_torch.ops import (conv_resize, fused_lstm, lstm_align, lstm_ss, lstm_train,
                                           transformer_decode, transformer_encode)
 from longterm360fov_tpu_torch.ops import transformer_encode_train as et
@@ -254,6 +254,78 @@ def test_serve_context_and_encode_never_fall_back_on_card():
         fused_lstm.fused_serve(enc, dec, pw, pb, _cuda(rng, (4, 5, 3)), 3, context=_cuda(rng, (4, 6)))
     with pytest.raises(ValueError, match="hidden % 32"):
         fused_lstm.fused_encode(_stack(rng, 3, 1, hidden=48), _cuda(rng, (4, 5, 3)))
+
+
+# ------------------------------------------------- the cell and decode kernels
+# fused_lstm_cell against lstm_cell within 1e-5 (tests/test_fused_lstm.py:
+# one step, exact f32 FMAs in another order); fused_decode against its plain
+# version within 1e-4, as fused_serve (the same decoder loop).
+
+
+@pytest.mark.parametrize("d_in", [3, 128, 131])
+@pytest.mark.parametrize("batch", [1, 257, 16383])
+def test_lstm_cell_kernel_matches_plain(batch, d_in):
+    rng = np.random.default_rng(d_in)
+    (p,) = _stack(rng, d_in, 1)
+    x, h, c = _cuda(rng, (batch, d_in)), _cuda(rng, (batch, 128), 0.5), _cuda(rng, (batch, 128), 0.5)
+    before = fused_lstm.fused_lstm_cell.launches
+    got = fused_lstm.fused_lstm_cell(p, x, (h, c))
+    torch.cuda.synchronize()
+    assert fused_lstm.fused_lstm_cell.launches == before + 1
+    for g, w in zip(got, lstm_cell(p, x, (h, c))):
+        assert g.shape == (batch, 128) and torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("layers,ctx_dim", [(1, 0), (2, 0), (2, 128), (3, 64)])
+@pytest.mark.parametrize("batch", [1, 257, 16383])
+def test_fused_decode_kernel_matches_plain(batch, layers, ctx_dim):
+    rng = np.random.default_rng(layers + ctx_dim)
+    dec = _stack(rng, 3 + ctx_dim, layers)
+    pw, pb = _cuda(rng, (128, 3), 0.1), _cuda(rng, (3,), 0.1)
+    h0, c0 = _cuda(rng, (layers, batch, 128), 0.3), _cuda(rng, (layers, batch, 128), 0.3)
+    y0, ctx = _cuda(rng, (batch, 3), 0.1), (_cuda(rng, (batch, ctx_dim)) if ctx_dim else None)
+    before = fused_lstm.fused_decode.launches
+    out = fused_lstm.fused_decode(dec, pw, pb, h0, c0, y0, 30, context=ctx)
+    torch.cuda.synchronize()
+    assert fused_lstm.fused_decode.launches == before + 1
+    ref = fused_lstm.fused_decode_reference(dec, pw, pb, h0, c0, y0, 30, ctx)
+    assert out.shape == (batch, 30, 3) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+def test_decode_fused_on_the_kernel_cell_equals_fused_serve():
+    """seq2seq.decode_fused under cell="pallas" (the encoder on the cell
+    kernel, then fused_decode) computes fused_serve's function with the same
+    device code for every layer-step."""
+    cfg = seq2seq.Seq2SeqConfig(hidden=128, layers=2, h_in=30, h_out=30, cell="pallas")
+    args = _args(cfg, 4099, seed=2)
+    p = {"encoder": args[0], "decoder": args[1], "proj": {"w": args[2], "b": args[3]}}
+    before = (fused_lstm.fused_lstm_cell.launches, fused_lstm.fused_decode.launches)
+    out = seq2seq.decode_fused(p, cfg, args[4])
+    torch.cuda.synchronize()
+    assert (fused_lstm.fused_lstm_cell.launches, fused_lstm.fused_decode.launches) == (before[0] + 60,
+                                                                                         before[1] + 1)
+    assert (out - fused_lstm.fused_serve(*args)).abs().max().item() <= 1e-4
+
+
+def test_cell_and_decode_never_fall_back_on_card():
+    rng = np.random.default_rng(0)
+    (p,) = _stack(rng, 3, 1)
+    x, h = _cuda(rng, (4, 3)), _cuda(rng, (4, 128))
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_lstm.fused_lstm_cell(p, x.requires_grad_(True), (h, h))
+    with pytest.raises(TypeError, match="slice I-b"):
+        fused_lstm.fused_lstm_cell(p, x.detach().bfloat16(), (h, h))
+    with pytest.raises(ValueError, match="aligned"):
+        fused_lstm.fused_lstm_cell(p, x.detach(), (h, torch.empty(4 * 128 + 1, device="cuda")[1:].view(4, 128)))
+    with pytest.raises(ValueError, match="hidden % 32"):
+        (q,) = _stack(rng, 3, 1, hidden=48)
+        fused_lstm.fused_lstm_cell(q, x.detach(), (_cuda(rng, (4, 48)), _cuda(rng, (4, 48))))
+    dec = _stack(rng, 3, 1)
+    h0 = _cuda(rng, (1, 4, 128))
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_lstm.fused_decode(dec, _cuda(rng, (128, 3)), _cuda(rng, (3,)), h0.requires_grad_(True), h0, x.detach(), 3)
 
 
 # ------------------------------------------------------------- ss_decode kernels
@@ -679,10 +751,73 @@ def test_transformer_kernels_never_fall_back_on_card():
         transformer_decode.fused_ar_decode(params, cfg, enc, past[:, 0])
     with pytest.raises(ValueError, match="T <= 64"):
         transformer_encode.fused_encode_tokens(params, cfg, torch.zeros(2, 65, 3, device="cuda"))
-    with pytest.raises(NotImplementedError, match="slice I"):
-        transformer_decode.fused_ar_decode(params, cfg, enc, y0, compute_dtype=torch.bfloat16)
+    with torch.no_grad():  # the bf16 tier runs on the card (its parity: test_transformer_bf16_tiers_match_plain)
+        out = transformer_decode.fused_ar_decode(params, cfg, enc, y0, compute_dtype=torch.bfloat16)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
     with pytest.raises(TypeError, match="float32"):
         transformer_decode.fused_ar_decode(params, cfg, enc.double(), y0)
+    with pytest.raises(TypeError, match="float32"):  # the bf16 tier takes the f32 model too
+        transformer_decode.fused_ar_decode(params, cfg, enc.bfloat16(), y0, compute_dtype=torch.bfloat16)
+
+
+# The bf16 tiers against their plain bf16 versions (models.transformer._encode
+# and _ar_decode with compute_dtype bfloat16): both round the same operands
+# and sum in f32 in another order, so a rounding may flip, which moves an
+# activation by 2^-8 of itself; 2e-2, the CPU suite's bound against JAX's
+# bf16 kernels (tests/test_torch_transformer_bf16.py), and JAX's 0.08
+# against the f32 plain version.
+BF16_TOL, BF16_F32_TOL = 2e-2, 0.08
+
+
+@pytest.mark.parametrize("k,pool,window", [(0, "none", 0), (4, "none", 0), (3, "mean", 0), (4, "none", 2)])
+def test_transformer_bf16_tiers_match_plain(k, pool, window):
+    cfg, params, past, enc, y0, pm, pv = _tfm_case(2, 30, 30, 257, k, pool, window, seed=k + 7)
+    bf16 = torch.bfloat16
+    before = (transformer_encode.fused_encode_tokens_bf16.launches, transformer_decode.fused_ar_decode_bf16.launches)
+    enc_k = transformer_encode.fused_encode_tokens(params, cfg, past, compute_dtype=bf16)
+    out = transformer_decode.fused_ar_decode(params, cfg, enc, y0, peer_mem=pm, peer_valid=pv, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    assert (transformer_encode.fused_encode_tokens_bf16.launches,
+            transformer_decode.fused_ar_decode_bf16.launches) == (before[0] + 1, before[1] + 1)
+    enc_p = transformer._encode(params, cfg, past, bf16)
+    assert (enc_k - enc_p).abs().max().item() <= BF16_TOL
+    assert (enc_k - enc).abs().max().item() <= BF16_F32_TOL
+    ref = transformer._ar_decode(params, cfg, enc, pm, pv, y0, compute_dtype=bf16)
+    f32 = transformer._ar_decode(params, cfg, enc, pm, pv, y0)
+    assert out.shape == (257, 30, 3) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= BF16_TOL
+    assert (out - f32).abs().max().item() <= BF16_F32_TOL
+
+
+@pytest.mark.parametrize("pool,window", [("none", 0), ("mean", 2)])
+def test_transformer_bf16_shared_tier_matches_plain(pool, window):
+    cfg, params, enc, y0, gmem, gvalid, gid, dv = _shared_case(2, 30, 30, 257, 4, pool, window, seed=3)
+    before = transformer_decode.fused_ar_decode_bf16.launches
+    out = transformer_decode.fused_ar_decode_shared(params, cfg, enc, y0, peer_gmem=gmem, peer_gvalid=gvalid,
+                                                    peer_gid=gid, peer_dv=dv, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert transformer_decode.fused_ar_decode_bf16.launches == before + 1
+    ref = transformer._ar_decode(params, cfg, enc, gmem, gvalid, y0, peer_gid=gid.long(), peer_dv=dv,
+                                 compute_dtype=torch.bfloat16)
+    assert (out - ref).abs().max().item() <= BF16_TOL
+    masked = gid == 2  # every peer masked: the peerless bf16 rollout
+    alone = transformer_decode.fused_ar_decode(params, cfg, enc, y0, compute_dtype=torch.bfloat16)
+    assert (out[masked] - alone[masked]).abs().max().item() <= BF16_TOL
+
+
+def test_serve_fused_defaults_to_bf16_on_the_card():
+    cfg, params, past, *_ = _tfm_case(2, 30, 30, 64)
+    before = (transformer_encode.fused_encode_tokens_bf16.launches, transformer_decode.fused_ar_decode_bf16.launches,
+              transformer_encode.fused_encode_tokens.launches, transformer_decode.fused_ar_decode.launches)
+    with torch.no_grad():
+        got = transformer.serve_fused(params, cfg, past)
+        f32 = transformer.serve_fused(params, cfg, past, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (transformer_encode.fused_encode_tokens_bf16.launches, transformer_decode.fused_ar_decode_bf16.launches,
+            transformer_encode.fused_encode_tokens.launches, transformer_decode.fused_ar_decode.launches) == tuple(
+        c + 1 for c in before)
+    assert torch.equal(got, transformer.serve_fused(params, cfg, past, compute_dtype=torch.bfloat16))
+    assert (got - f32).abs().max().item() <= BF16_F32_TOL
 
 
 # ------------------------------------------------- the shared tier and row 11

@@ -1,7 +1,10 @@
-"""``cell="pallas"`` on the LSTM families. The JAX package runs its
-``fused_lstm_cell`` TPU kernel there, which the port has not ported yet
-(ROADMAP.md Queue 2 #2, slice I): every entry point of seq2seq, cross_user
-and fusion raises instead of running the plain cell in its place. The
+"""``cell="pallas"`` on the LSTM families. It selects the one-step cell
+kernel, ``ops.fused_lstm.fused_lstm_cell``, in the step loops of seq2seq,
+cross_user and fusion (``apply`` in every mode, ``decode``, the peer
+encoders' non-fused routes), as the JAX package's ``get_cell_fn`` does; the
+fused entries (``apply_fused_tf``, ``apply_fused_ss``, ``serve_fused``) run
+whole-sequence kernels and ignore it, as in JAX. The cell kernel has no
+backward (nor has the TPU kernel): a step loop under grad refuses it. The
 transformer family has no LSTM cell, and ignores ``cell``, as in JAX."""
 
 import dataclasses
@@ -10,6 +13,7 @@ import pytest
 import torch
 
 from longterm360fov_tpu_torch.models import cross_user, fusion, seq2seq, transformer
+from longterm360fov_tpu_torch.ops import fused_lstm
 
 
 def _case(fam):
@@ -20,34 +24,59 @@ def _case(fam):
     return dataclasses.replace(cfg, cell="pallas"), params, past, fut
 
 
+@pytest.fixture
+def cell_calls(monkeypatch):
+    """Count the calls of the kernel cell's wrapper (its plain version runs on
+    the CPU, so its launch count stays 0)."""
+    calls = []
+    real = fused_lstm.fused_lstm_cell
+    monkeypatch.setattr(fused_lstm, "fused_lstm_cell", lambda *a: calls.append(1) or real(*a))
+    return calls
+
+
 @pytest.mark.parametrize("entry", ["apply", "apply-tf", "apply_fused_tf", "apply_fused_ss", "serve_fused"])
 @pytest.mark.parametrize("fam", [seq2seq, cross_user, fusion], ids=lambda m: m.__name__.rsplit(".", 1)[-1])
-def test_lstm_families_refuse_the_pallas_cell(fam, entry):
+def test_lstm_families_on_the_pallas_cell(fam, entry, cell_calls):
+    """The plain entries step through the kernel cell, once a layer a step
+    (4 encoder + 3 decoder steps; the cross_user and fusion contexts here
+    are zeros, no peer loop); the fused ones never call it. Both equal the
+    same entry under cell="xla"."""
     cfg, params, past, fut = _case(fam)
-    calls = {
-        "apply": lambda: fam.apply(params, cfg, past),
-        "apply-tf": lambda: fam.apply(params, cfg, past, fut),
-        "apply_fused_tf": lambda: fam.apply_fused_tf(params, cfg, past, fut),
-        "apply_fused_ss": lambda: fam.apply_fused_ss(params, cfg, past, fut, coins=torch.ones(3, 2, 1)),
-        "serve_fused": lambda: fam.serve_fused(params, cfg, past),
-    }
-    with pytest.raises(NotImplementedError, match="Queue 2 #2, slice I"):
-        calls[entry]()
-    # the same call with the plain cell runs
-    xla = dataclasses.replace(cfg, cell="xla")
-    assert torch.isfinite(getattr(fam, entry.split("-")[0])(
-        params, xla, past, *([fut] if entry not in ("apply", "serve_fused") else []),
-        **({"coins": torch.ones(3, 2, 1)} if entry == "apply_fused_ss" else {}))).all()
+    args = {"apply": (), "apply-tf": (fut,), "apply_fused_tf": (fut,), "apply_fused_ss": (fut,),
+            "serve_fused": ()}[entry]
+    kw = {"coins": torch.ones(3, 2, 1)} if entry == "apply_fused_ss" else {}
+    fn = getattr(fam, entry.split("-")[0])
+    got = fn(params, cfg, past, *args, **kw)
+    assert len(cell_calls) == (7 if entry in ("apply", "apply-tf") else 0)
+    assert torch.equal(got, fn(params, dataclasses.replace(cfg, cell="xla"), past, *args, **kw))
 
 
-def test_cross_user_peer_align_refuses_the_pallas_cell():
+def test_cross_user_peer_align_on_the_pallas_cell(cell_calls):
+    """peer_align: apply's aligned peer encoder steps through the kernel cell
+    (3 peer steps, then 4 + 3 model steps); the lockstep kernels of
+    serve_fused and apply_fused_tf ignore the cell."""
     cfg, params, past, fut = _case(cross_user)
     cfg = dataclasses.replace(cfg, peer_align=True)
+    xla = dataclasses.replace(cfg, cell="xla")
     others = torch.randn(2, 2, 3, 3) * 0.1
-    for call in (lambda: cross_user.serve_fused(params, cfg, past, other_future_n=others),
-                 lambda: cross_user.apply_fused_tf(params, cfg, past, fut, other_future_n=others)):
-        with pytest.raises(NotImplementedError, match="slice I"):
-            call()
+    got = cross_user.apply(params, cfg, past, other_future_n=others)
+    assert len(cell_calls) == 10
+    assert torch.equal(got, cross_user.apply(params, xla, past, other_future_n=others))
+    for call in (lambda c: cross_user.serve_fused(params, c, past, other_future_n=others),
+                 lambda c: cross_user.apply_fused_tf(params, c, past, fut, other_future_n=others)):
+        assert torch.equal(call(cfg), call(xla))
+    assert len(cell_calls) == 10
+
+
+def test_pallas_cell_refuses_grad():
+    """Training through the step loop (train_impl "xla") differentiates
+    through the cell: the kernel cell has no backward, so apply raises where
+    a parameter requires grad, as JAX's linearization fails there."""
+    cfg, params, past, fut = _case(seq2seq)
+    params["decoder"][0].w.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="fused_lstm_cell has no backward"):
+        seq2seq.apply(params, cfg, past, fut)
+    assert seq2seq.apply(params, dataclasses.replace(cfg, cell="xla"), past, fut).requires_grad
 
 
 def test_transformer_ignores_cell_as_in_jax():

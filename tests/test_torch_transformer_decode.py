@@ -137,18 +137,24 @@ def test_predict_fn_matches_jax():
 
 
 def test_unported_serving_tiers_raise():
-    """bf16 (slice I) raises in every tier, the group-shared one (ported)
-    included; the transformer's grouped gateway is ported."""
+    """bf16 is ported in every tier, the group-shared one included: on CPU
+    tensors each runs the bf16 plain versions (tests/test_torch_transformer_bf16.py
+    holds them against JAX's bf16 kernels); the transformer's grouped gateway
+    is ported; the decode refuses grad and half-given peers."""
     _, tcfg, _, tp, past, others, _ = _setup(k=2)
     x = torch.from_numpy(past)
-    with pytest.raises(NotImplementedError, match="slice I"):
-        transformer.serve_fused(tp, tcfg, x, group_future_n=torch.from_numpy(others[:2]),
-                                peer_gid=torch.zeros(8, dtype=torch.long), compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="slice I"):
-        transformer.serve_fused(tp, tcfg, x, compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="slice I"):
-        transformer_decode.fused_ar_decode(tp, tcfg, transformer._encode(tp, tcfg, x).detach(), x[:, -1],
-                                           compute_dtype=torch.bfloat16)
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        enc = transformer._encode(tp, tcfg, x, bf16)
+        gmem, gvalid = transformer._peer_tokens(tp, tcfg, torch.from_numpy(others[:2]), None)
+        gid = torch.zeros(8, dtype=torch.long)
+        assert torch.equal(
+            transformer.serve_fused(tp, tcfg, x, group_future_n=torch.from_numpy(others[:2]), peer_gid=gid,
+                                    compute_dtype=bf16),
+            transformer._ar_decode(tp, tcfg, enc, gmem, gvalid, x[:, -1], peer_gid=gid, compute_dtype=bf16))
+        want = transformer._ar_decode(tp, tcfg, enc, None, None, x[:, -1], compute_dtype=bf16)
+        assert torch.equal(transformer.serve_fused(tp, tcfg, x, compute_dtype=bf16), want)
+        assert torch.equal(transformer_decode.fused_ar_decode(tp, tcfg, enc, x[:, -1], compute_dtype=bf16), want)
     cfg = get_preset("transformer-30")
     assert serving.make_grouped_serve_fn(tp, cfg, transformer, device="cpu").tile_b == 1
     with pytest.raises(RuntimeError, match="no backward"):
