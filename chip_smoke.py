@@ -41,7 +41,15 @@ one line each or more:
    ``fused_encode_tokens`` and ``fused_ar_decode`` at both transformer
    presets' shapes (per row: no peers, K = 4 "none" and "mean", the
    windows; the shared tier with δv) against their bf16 plain versions
-   (BF16_TOL) and the f32 plain versions (JAX's 0.08);
+   (BF16_TOL) and the f32 plain versions (JAX's 0.08); the bf16-compute
+   tiers of the ``lstm_seq_states``, ``ss_decode`` and ``aligned_ss_decode``
+   kernels (``train --train-compute bfloat16``) against their bf16 and their
+   f32 plain versions (BF16C_*: about 10x the gap read to the bf16 one,
+   JAX's contract for the tier to the f32 one, and each rounded output at
+   least half as far from the f32 one as the bf16 plain version): B = 4099,
+   1 and 2 layers, both residual types, ``ss_decode`` at C = 0, 128 and 64
+   with the three coin kinds, the aligned kernels at K = 3 and 7 with a row
+   whose every peer is masked;
 4. the ``seq2seq-tf-30`` serving main path: ``serving.make_serve_fn`` behind
    a ``DynamicBatcher`` answers 64 concurrent single-viewer requests and one
    bulk request; every answer equals the direct batched call and the numpy
@@ -58,7 +66,15 @@ one line each or more:
    B = 4096 through the ``lstm_seq_states`` kernels, with evaluation,
    checkpoints and a resume that equals the uninterrupted run, one step
    through the kernels against plain autograd, the step's speed, and the
-   training kernels alone against plain and cuDNN/cuBLAS;
+   training kernels alone against plain and cuDNN/cuBLAS; then
+   ``train_compute="bfloat16"`` (:func:`drive_bf16_training`): a short
+   ``train_loop`` through the bf16-compute kernels (counted apart from the
+   f32 ones), evaluation, a bit-equal resume, one step on the card against
+   the CPU port's bf16 plain step with the same coins and against the f32
+   step, the step against the f32 step in turns, and each bf16-compute
+   kernel alone against its bf16 plain version, its f32 twin and, for the
+   reductions, cuBLAS on bf16 operands; phases 7, 9 and 12 end the same way
+   (the static context's peer encoder of 7 stays in f32, as in JAX);
 6. the ``stacked-ss-crossuser`` serving main path: the batcher with K = 4
    peer futures per request (some with fewer, some with none) in front of
    ``fused_encode`` + the static-context ``fused_serve``; every answer
@@ -147,7 +163,8 @@ Then one JSON line on the kernels (launches on their main path, max error
 over every check, kernel, plain and library times by CUDA events, and the
 bound: the larger of the work's FLOP over the peak of its type, the f32
 FMA peak or, for the bf16 tiers' products, the dense bf16 tensor-core
-peak, and its bytes, in the types the tier stores, over the memory rate),
+peak, and its bytes, in the types the tier stores and reads, over the
+memory rate),
 and last the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -202,6 +219,35 @@ BWD_REL_TOL = 1e-4
 STEP_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 ALIGN_STEP_REL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 TRAIN_B = 4096  # the batch scripts/bench_train.py trains both presets at
+# the bounds above, by kind of output: a forward ("fwd", absolute), a
+# backward recurrence ("rec") and a reduction fed the plain dgates ("sum";
+# "ctx_sum" for the lockstep decoder's, whose loader rebuilds the context),
+# both relative to max|plain| per output
+F32_LIMIT = {"fwd": FWD_TOL, "rec": BWD_REL_TOL, "sum": BWD_REL_TOL, "ctx_sum": BWD_REL_TOL}
+# the bf16-compute tiers (train --train-compute bfloat16): against the f32
+# plain version, JAX's contract for the tier against its f32 tier
+# (tests/test_lstm_train.py:204-229: the forward within 0.05 absolute, the
+# gradients within 6 % of max|g| per output; one train step's loss within
+# 1e-2 relative, :232-262). The whole bf16-vs-f32 gap fits under that, so the
+# kernel is also held to its bf16 plain version, near this script's and the
+# card tests' readings (PERF.md): the forward 1e-2 (read 8.9e-4 with
+# f32 residuals; plus one bf16 step on a value stored in bf16), the backward
+# recurrences 1e-2 of max|g| (read 2.4e-3), the reductions fed the same
+# dgates 1e-4 of max|g| (read 9.0e-6), the lockstep decoder's 2e-3 (read
+# 2.5e-4: its loader rebuilds ctx_t = Σ_k w_k·h_k with FMAs, the plain
+# version with a rounding per product, so an f32 ulp may round ctx_t the
+# other way), one step on the card against the CPU port's loss 5e-5 relative
+# (read 3.6e-6) and gradients 1e-2 of max|g| (read 6.8e-4). Both round the
+# same operands and sum in f32 in another order, so a rounding may flip and
+# carry through a row's later steps: that is the gap the readings show. And
+# the kernel rounds: each output the tier rounds stands from the f32 plain
+# version at least BF16C_FLOOR of the bf16 plain version's gap, in the mean
+# (the largest gap of a value stored in bf16 is one bf16 step whether or
+# not its compute rounded; read 0.998-1.000); the step likewise, on the
+# largest gaps
+BF16C_CONTRACT = {"fwd": 0.05, "rec": 0.06, "sum": 0.06, "ctx_sum": 0.06, "loss": 1e-2, "step": 0.06}
+BF16C_TIGHT = {"fwd": 1e-2, "rec": 1e-2, "sum": 1e-4, "ctx_sum": 2e-3, "loss": 5e-5, "step": 1e-2}
+BF16C_FLOOR = 0.5
 F32_FLOPS = 67e12  # H100 SXM f32 FMA peak outside the tensor cores (data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
@@ -244,6 +290,8 @@ TF_SERVE, TF_SERVE_F32, TF_TRAIN = "serve transformer-30", "serve transformer-30
 TF10_SERVE, TF10_SERVE_F32 = "serve transformer-10s", "serve transformer-10s f32"
 TF10_GROUPED, TF10_GROUPED_F32 = "serve transformer-10s grouped", "serve transformer-10s grouped f32"
 TF10_TRAIN = "train transformer-10s"
+S2S_TRAIN_BF16, CU_TRAIN_BF16 = "train seq2seq-tf-30 bf16", "train stacked-ss-crossuser bf16"
+CU10_TRAIN_BF16, FU_TRAIN_BF16 = "train stacked-ss-crossuser-10s bf16", "train video-fusion bf16"
 # the transformer kernels vs plain: 3e-5 absolute on the encoder memory and
 # the normalized outputs, the JAX suite's bound for both TPU kernels
 # (tests/test_transformer_encode.py:35, tests/test_transformer_decode.py:43)
@@ -287,6 +335,25 @@ CONV_REL_TOL = 1e-5
 FEAT_REL_TOL = 1e-4
 CLIP_T, CLIP_H, CLIP_W = 1200, 480, 960  # the synthetic clips: as long as the traces
 ALIGN_FWD, ALIGN_BWD = "longterm360fov_tpu/ops/lstm_align.py:244", "longterm360fov_tpu/ops/lstm_align.py:570"
+
+
+class Bf16Count:
+    """The bf16-compute instance of a training wrapper's kernel, counted as
+    :func:`drive` counts a wrapper: its ``launches`` are the wrapper's
+    ``launches_bf16``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.launches_bf16
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches_bf16 = n
+
+
 # one entry per kernel: "path" is the main path whose run gives its launches
 KERNELS = [
     ("fused_serve", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:503", fused_lstm.fused_serve, S2S_SERVE),
@@ -329,7 +396,29 @@ KERNELS = [
      encode_train.encode_train_bwd, TF_TRAIN),
     ("encode_train_dw", TTRAIN_SRC, "longterm360fov_tpu/ops/transformer_encode_train.py:486",
      encode_train.encode_train_dw, TF_TRAIN),
+    # the bf16-compute tiers of rows 5-7 (train --train-compute bfloat16)
+    ("lstm_seq_states_fwd_bf16", LSTM_SRC, "longterm360fov_tpu/ops/lstm_train.py:172",
+     Bf16Count(lstm_train.lstm_fwd), S2S_TRAIN_BF16),
+    ("lstm_seq_states_bwd_bf16", LSTM_SRC, "longterm360fov_tpu/ops/lstm_train.py:396",
+     Bf16Count(lstm_train.lstm_bwd), S2S_TRAIN_BF16),
+    ("lstm_seq_states_dw_bf16", LSTM_SRC, "longterm360fov_tpu/ops/lstm_train.py:396",
+     Bf16Count(lstm_train.lstm_dw), S2S_TRAIN_BF16),
+    ("ss_decode_fwd_bf16", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:175", Bf16Count(lstm_ss.ss_fwd),
+     CU_TRAIN_BF16),
+    ("ss_decode_bwd_bf16", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:404", Bf16Count(lstm_ss.ss_bwd),
+     CU_TRAIN_BF16),
+    ("ss_decode_dw_bf16", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:404", Bf16Count(lstm_ss.ss_dw),
+     CU_TRAIN_BF16),
+    ("ss_decode_dproj_bf16", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:404", Bf16Count(lstm_ss.ss_dproj),
+     CU_TRAIN_BF16),
+    ("aligned_peer_fwd_bf16", ALIGN_SRC, ALIGN_FWD, Bf16Count(lstm_align.peer_fwd), CU10_TRAIN_BF16),
+    ("aligned_dec_fwd_bf16", ALIGN_SRC, ALIGN_FWD, Bf16Count(lstm_align.dec_fwd), CU10_TRAIN_BF16),
+    ("aligned_dec_bwd_bf16", ALIGN_SRC, ALIGN_BWD, Bf16Count(lstm_align.dec_bwd), CU10_TRAIN_BF16),
+    ("aligned_peer_bwd_bf16", ALIGN_SRC, ALIGN_BWD, Bf16Count(lstm_align.peer_bwd), CU10_TRAIN_BF16),
+    ("aligned_dec_dw_bf16", ALIGN_SRC, ALIGN_BWD, Bf16Count(lstm_align.dec_dw), CU10_TRAIN_BF16),
+    ("aligned_peer_dw_bf16", ALIGN_SRC, ALIGN_BWD, Bf16Count(lstm_align.peer_dw), CU10_TRAIN_BF16),
 ]
+BF, F32 = torch.bfloat16, torch.float32
 WRAPPERS = {name: wrapper for name, _, _, wrapper, _ in KERNELS}
 ERRS = {name: 0.0 for name in WRAPPERS}  # max abs error vs plain over every check
 TIMES = {}  # kernel name -> {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}
@@ -533,30 +622,82 @@ def check_decode(dev, batch, layers, ctx_dim, seed, t=30):
     return err
 
 
-def check_fwd(name, pairs, rd, what):
-    """Forward outputs against their plain versions: FWD_TOL absolute, plus
-    one bf16 step where the output is a bf16 residual."""
-    err = 0.0
-    for a, b in pairs:
-        diff = (a.float() - b.float()).abs()
-        tol = FWD_TOL if a.dtype == torch.float32 else FWD_TOL + 2.0 ** -7 * b.float().abs()
-        if a.shape != b.shape or not torch.isfinite(a.float()).all() or not (diff <= tol).all():
-            raise AssertionError(f"{name} disagrees with its plain version ({what}, {rd})")
-        err = max(err, diff.max().item())
-    note_err(name, err)
-    return err
+def within(a, b, kind, limit):
+    """``a`` within ``limit`` of ``b``: absolute on a forward output (plus
+    one bf16 step, 2^-7 of the value, where ``a`` is stored in bf16: an f32
+    difference of 1e-7 may round either way), relative to max|b| on a
+    gradient."""
+    diff = (a.float() - b.float()).abs()
+    if kind == "fwd":
+        return bool((diff <= limit + (2.0 ** -7 * b.float().abs() if a.dtype == BF else 0.0)).all())
+    return diff.max().item() <= limit * b.float().abs().max().item()
 
 
-def check_bwd(name, pairs, what):
-    """Gradients against their plain versions: BWD_REL_TOL of max|plain|."""
-    err = 0.0
-    for a, b in pairs:
-        diff = (a - b).abs().max().item()
-        if a.shape != b.shape or not torch.isfinite(a).all() or not diff <= BWD_REL_TOL * b.abs().max().item():
-            raise AssertionError(f"{name} disagrees with its plain version ({what}): {diff:.3e}")
-        err = max(err, diff)
+def gap(a, b, kind):
+    """The largest gap of ``a`` from ``b`` in its limit's unit (within)."""
+    diff = (a.float() - b.float()).abs().max().item()
+    return diff if kind == "fwd" else diff / (b.float().abs().max().item() or 1.0)
+
+
+def mean_gap(a, b):
+    return (a.float() - b.float()).abs().mean().item()
+
+
+def check_outputs(name, outs, refs, what, kind, cd=F32, unrounded=0):
+    """A kernel's outputs ``outs`` against ``refs[0]``, its plain version's
+    in its compute type ``cd``, on the same inputs; ``kind`` is "fwd", "rec"
+    "sum" or "ctx_sum" (F32_LIMIT). In f32 within F32_LIMIT → the largest absolute
+    gap. In bf16 (BF16C_*) within BF16C_TIGHT of ``refs[0]`` and
+    BF16C_CONTRACT of ``refs[1]``, the f32 plain version's, and each output
+    but the last ``unrounded`` (sums of unrounded values: db, dproj_b, dpwt)
+    at least BF16C_FLOOR of the bf16 plain version's mean gap from the f32
+    one → {"bf16", "f32": the largest gap to each in the limit's unit,
+    "floor": the least of those ratios}. The largest absolute gap to
+    ``refs[0]`` is kept as the kernel's error."""
+    name += "_bf16" if cd == BF else ""
+    limits = {"f32": F32_LIMIT[kind]} if cd == F32 else {"bf16": BF16C_TIGHT[kind], "f32": BF16C_CONTRACT[kind]}
+    for (tier, limit), ref in zip(limits.items(), refs, strict=True):
+        for a, b in zip(outs, ref, strict=True):
+            if a.shape != b.shape or not torch.isfinite(a.float()).all() or not within(a, b, kind, limit):
+                raise AssertionError(f"{name} disagrees with the {tier} plain version ({what}): "
+                                     f"{gap(a, b, kind):.3e} (limit {limit})")
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs, refs[0]))
     note_err(name, err)
-    return err
+    if cd == F32:
+        return err
+    n = len(outs) - unrounded
+    ratios = [mean_gap(a, f) / mean_gap(p, f) for a, p, f in zip(outs[:n], refs[0][:n], refs[1][:n])
+              if mean_gap(p, f) > 0]
+    readings = {tier: max(gap(a, b, kind) for a, b in zip(outs, ref)) for tier, ref in zip(limits, refs)}
+    readings["floor"] = min(ratios, default=0.0)
+    if not readings["floor"] >= BF16C_FLOOR:
+        raise AssertionError(f"{name} stands {readings['floor']:.3f} of its bf16 plain version's gap from the f32 "
+                             f"plain version ({what}): it does not round as the tier does")
+    return readings
+
+
+def plains(cd, fn):
+    """``fn(compute_dtype)``: the plain version in the compute type ``cd``,
+    and in bf16 the f32 one after it."""
+    return [fn(cd)] if cd == F32 else [fn(BF), fn(F32)]
+
+
+def grads(out):
+    """A backward's outputs as one list of tensors (per-layer lists
+    flattened, absent outputs dropped)."""
+    flat = []
+    for x in out:
+        flat += list(x) if isinstance(x, list) else [] if x is None else [x]
+    return flat
+
+
+def wb(ps):
+    """Per-layer parameters (or their gradients) as [w..., b...]."""
+    return [p.w for p in ps] + [p.b for p in ps]
+
+
+def fwd_outs(res):
+    return res.hs + res.cs + res.gs
 
 
 def lstm_case(dev, batch, layers, seed, t=30, d=3, h=128):
@@ -570,25 +711,25 @@ def lstm_case(dev, batch, layers, seed, t=30, d=3, h=128):
     return ps, ts[:3], ts[3:]
 
 
-def check_lstm_kernels(dev, batch, layers, rd, seed):
-    """The three lstm_seq_states kernels against their plain versions on the
-    same inputs → max abs error of each; raises past the tolerances."""
+def check_lstm_kernels(dev, batch, layers, rd, seed, cd=F32):
+    """The three lstm_seq_states kernels in the compute type ``cd`` against
+    their plain versions on the same inputs (the backward fed the kernel's
+    residuals, the reduction the plain dgates) → check_outputs' reading of
+    each."""
     ps, (xs, h0, c0), up = lstm_case(dev, batch, layers, seed)
-    what = f"B={batch}, L={layers}"
-    res = lstm_train.lstm_fwd(ps, xs, h0, c0, rd)
-    ref = lstm_train._forward_reference(ps, xs, h0, c0, rd)
+    what = f"B={batch}, L={layers}, {str(rd)[6:]} residuals, {str(cd)[6:]} compute"
+    res = lstm_train.lstm_fwd(ps, xs, h0, c0, rd, cd)
+    refs = plains(cd, lambda c: lstm_train._forward_reference(ps, xs, h0, c0, rd, c))
     torch.cuda.synchronize()
-    errs = {"fwd": check_fwd("lstm_seq_states_fwd", list(zip(res.hs + res.cs + res.gs,
-                                                                ref.hs + ref.cs + ref.gs)), rd, what)}
-    dg, dxs, dh0, dc0 = lstm_train.lstm_bwd(ps, c0, res, *up)
-    dg_p, dxs_p, dh0_p, dc0_p = lstm_train._bwd_recurrence_reference(ps, c0, res, *up)
-    dps = lstm_train.lstm_dw(ps, xs, h0, res, dg_p)
-    dps_p = lstm_train._dw_reference(ps, xs, h0, res, dg_p)
+    errs = {"fwd": check_outputs("lstm_seq_states_fwd", fwd_outs(res), [fwd_outs(r) for r in refs], what, "fwd", cd)}
+    bw = lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=cd)
+    bws = plains(cd, lambda c: lstm_train._bwd_recurrence_reference(ps, c0, res, *up, c))
+    dps = lstm_train.lstm_dw(ps, xs, h0, res, bws[0][0], cd)
+    dws = plains(cd, lambda c: lstm_train._dw_reference(ps, xs, h0, res, bws[0][0], c))
     torch.cuda.synchronize()
-    errs["bwd"] = check_bwd("lstm_seq_states_bwd",
-                            list(zip(dg, dg_p)) + [(dxs, dxs_p), (dh0, dh0_p), (dc0, dc0_p)], what)
-    errs["dw"] = check_bwd("lstm_seq_states_dw", [(a.w, b.w) for a, b in zip(dps, dps_p)]
-                           + [(a.b, b.b) for a, b in zip(dps, dps_p)], what)
+    errs["bwd"] = check_outputs("lstm_seq_states_bwd", grads(bw), [grads(b) for b in bws], what, "rec", cd)
+    errs["dw"] = check_outputs("lstm_seq_states_dw", wb(dps), [wb(d) for d in dws], what, "sum", cd,
+                               unrounded=layers)
     return errs
 
 
@@ -614,32 +755,34 @@ def ss_fwd_args(ps, a):
     return (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], a["ctx"])
 
 
-def check_ss_kernels(dev, batch, layers, ctx_dim, rd, coins, seed):
-    """The four ss_decode kernels against their plain versions on the same
-    inputs: the forward on ys and the residuals; the backward recurrence,
-    fed the same residuals, on dgates, dy, dteacher, dy0, dh0, dc0 and dctx;
-    the reductions, fed the plain dgates and dy, on dW, db, dproj_w and
-    dproj_b → max abs error of each."""
+def check_ss_kernels(dev, batch, layers, ctx_dim, rd, coins, seed, cd=F32):
+    """The four ss_decode kernels in the compute type ``cd`` against their
+    plain versions on the same inputs: the forward on ys and the residuals;
+    the backward recurrence, fed the kernel's residuals, on dgates, dy,
+    dteacher, dy0, dh0, dc0 and dctx; the reductions, fed the plain dgates
+    and dy, on dW, db, dproj_w and dproj_b → check_outputs' reading of
+    each."""
     ps, a = ss_case(dev, batch, layers, ctx_dim, coins, seed)
-    what = f"B={batch}, L={layers}, C={ctx_dim}, coins {coins}"
-    ys, res = lstm_ss.ss_fwd(*ss_fwd_args(ps, a), rd)
-    ys_p, res_p = lstm_ss._forward_reference(*ss_fwd_args(ps, a), rd)
+    what = f"B={batch}, L={layers}, C={ctx_dim}, coins {coins}, {str(rd)[6:]} residuals, {str(cd)[6:]} compute"
+    ys, res = lstm_ss.ss_fwd(*ss_fwd_args(ps, a), rd, cd)
+    refs = plains(cd, lambda c: lstm_ss._forward_reference(*ss_fwd_args(ps, a), rd, c))
     torch.cuda.synchronize()
-    errs = {"fwd": check_fwd("ss_decode_fwd", [(ys, ys_p)] + list(zip(
-        res.hs + res.cs + res.gs, res_p.hs + res_p.cs + res_p.gs)), rd, what)}
-    bw = lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], ctx_dim)
-    bw_p = lstm_ss._bwd_recurrence_reference(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], ctx_dim)
-    dw_in = (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["ctx"], ys, res, bw_p[0])
-    dps, dps_p = lstm_ss.ss_dw(*dw_in), lstm_ss._dw_reference(*dw_in)
-    dproj, dproj_p = lstm_ss.ss_dproj(res.hs[-1], bw_p[1]), lstm_ss._dproj_reference(res.hs[-1], bw_p[1])
+    errs = {"fwd": check_outputs("ss_decode_fwd", [ys] + fwd_outs(res), [[y] + fwd_outs(r) for y, r in refs],
+                                 what, "fwd", cd)}
+    bwd_args = (ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], ctx_dim)
+    bw = lstm_ss.ss_bwd(*bwd_args, cd)
+    bws = plains(cd, lambda c: lstm_ss._bwd_recurrence_reference(*bwd_args, compute_dtype=c))
+    dw_in = (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["ctx"], ys, res, bws[0][0])
+    dps, dws = lstm_ss.ss_dw(*dw_in, cd), plains(cd, lambda c: lstm_ss._dw_reference(*dw_in, c))
+    dproj = lstm_ss.ss_dproj(res.hs[-1], bws[0][1], cd)
+    dprojs = plains(cd, lambda c: lstm_ss._dproj_reference(res.hs[-1], bws[0][1], c))
     torch.cuda.synchronize()
     if (bw[6] is None) != (ctx_dim == 0):
         raise AssertionError(f"ss_bwd gave dctx {bw[6] is not None} for C={ctx_dim}")
-    errs["bwd"] = check_bwd("ss_decode_bwd", list(zip(bw[0], bw_p[0])) + [
-        (x, y) for x, y in zip(bw[1:], bw_p[1:]) if y is not None], f"{what}, {rd}")
-    errs["dw"] = check_bwd("ss_decode_dw", [(x.w, y.w) for x, y in zip(dps, dps_p)]
-                           + [(x.b, y.b) for x, y in zip(dps, dps_p)], f"{what}, {rd}")
-    errs["dproj"] = check_bwd("ss_decode_dproj", list(zip(dproj, dproj_p)), f"{what}, {rd}")
+    errs["bwd"] = check_outputs("ss_decode_bwd", grads(bw), [grads(b) for b in bws], what, "rec", cd)
+    errs["dw"] = check_outputs("ss_decode_dw", wb(dps), [wb(d) for d in dws], what, "sum", cd, unrounded=layers)
+    errs["dproj"] = check_outputs("ss_decode_dproj", list(dproj), [list(d) for d in dprojs], what, "sum", cd,
+                                  unrounded=1)
     return errs
 
 
@@ -693,41 +836,42 @@ def aligned_case(dev, batch, layers, k, coins, seed, t=100):
     return ps, a
 
 
-def check_aligned_kernels(dev, batch, layers, k, rd, coins, seed):
-    """The six aligned_ss_decode kernels against their plain versions on the
-    same inputs: the peer forward on the peer h, c and ctx; the decoder
-    forward, fed the plain ctx, on ys and its residuals; the decoder
-    backward on dgates, dy, dteacher, dy0, dh0, dc0 and the per-step dctx;
-    the peer backward, fed the plain dctx, on the peer dgates, dpxs and
-    dpwt; the reductions, fed the plain dgates, on dW and db → max abs error
-    of each."""
+def check_aligned_kernels(dev, batch, layers, k, rd, coins, seed, cd=F32):
+    """The six aligned_ss_decode kernels in the compute type ``cd`` against
+    their plain versions on the same inputs: the peer forward on the peer
+    h, c and ctx; the decoder forward, fed the plain ctx, on ys and its
+    residuals; the decoder backward on dgates, dy, dteacher, dy0, dh0, dc0
+    and the per-step dctx; the peer backward, fed the plain dctx, on the
+    peer dgates, dpxs and dpwt; the reductions, fed the plain dgates, on dW
+    and db → check_outputs' reading of each."""
     ps, a = aligned_case(dev, batch, layers, k, coins, seed)
-    what = f"B={batch}, L={layers}, K={k}, coins {coins}"
-    php, pcp, ctx = lstm_align.peer_fwd(a["peer"], a["pxs"], a["pwt"], rd)
-    php_p, pcp_p, ctx_p = lstm_align._peer_fwd_reference(a["peer"], a["pxs"], a["pwt"], rd)
-    fwd_args = (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], ctx_p)
-    ys, res = lstm_align.dec_fwd(*fwd_args, rd)
-    ys_p, res_p = lstm_ss._forward_reference(*fwd_args, rd)
+    what = f"B={batch}, L={layers}, K={k}, coins {coins}, {str(rd)[6:]} residuals, {str(cd)[6:]} compute"
+    php, pcp, ctx = lstm_align.peer_fwd(a["peer"], a["pxs"], a["pwt"], rd, cd)
+    prefs = plains(cd, lambda c: lstm_align._peer_fwd_reference(a["peer"], a["pxs"], a["pwt"], rd, c))
+    fwd_args = (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], prefs[0][2])
+    ys, res = lstm_align.dec_fwd(*fwd_args, rd, cd)
+    refs = plains(cd, lambda c: lstm_ss._forward_reference(*fwd_args, rd, c))
     torch.cuda.synchronize()
-    errs = {"peer_fwd": check_fwd("aligned_peer_fwd", [(ctx, ctx_p), (php, php_p), (pcp, pcp_p)], rd, what),
-            "dec_fwd": check_fwd("aligned_dec_fwd", [(ys, ys_p)] + list(zip(
-                res.hs + res.cs + res.gs, res_p.hs + res_p.cs + res_p.gs)), rd, what)}
-    bw = lstm_align.dec_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
-    bw_p = lstm_ss._bwd_recurrence_reference(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128,
-                                             step_ctx=True)
-    pb = lstm_align.peer_bwd(a["peer"], a["pxs"], a["pwt"], php, pcp, bw_p[6])
-    pb_p = lstm_align._peer_bwd_reference(a["peer"], a["pxs"], a["pwt"], php, pcp, bw_p[6])
-    dw_in = (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["pwt"], php, ys, res, bw_p[0])
-    dps, dps_p = lstm_align.dec_dw(*dw_in), lstm_align._dw_reference(*dw_in)
-    pdw = lstm_align.peer_dw(a["peer"], a["pxs"], php, pb_p[0])
-    pdw_p = lstm_align._peer_dw_reference(a["peer"], a["pxs"], php, pb_p[0])
+    errs = {"peer_fwd": check_outputs("aligned_peer_fwd", [php, pcp, ctx], [list(r) for r in prefs], what, "fwd", cd),
+            "dec_fwd": check_outputs("aligned_dec_fwd", [ys] + fwd_outs(res), [[y] + fwd_outs(r) for y, r in refs],
+                                     what, "fwd", cd)}
+    bwd_args = (ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
+    bw = lstm_align.dec_bwd(*bwd_args, cd)
+    bws = plains(cd, lambda c: lstm_ss._bwd_recurrence_reference(*bwd_args, step_ctx=True, compute_dtype=c))
+    pargs = (a["peer"], a["pxs"], a["pwt"], php, pcp, bws[0][6])
+    pb, pbs = lstm_align.peer_bwd(*pargs, cd), plains(cd, lambda c: lstm_align._peer_bwd_reference(*pargs, c))
+    dw_in = (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["pwt"], php, ys, res, bws[0][0])
+    dps, dws = lstm_align.dec_dw(*dw_in, cd), plains(cd, lambda c: lstm_align._dw_reference(*dw_in, c))
+    pdw_in = (a["peer"], a["pxs"], php, pbs[0][0])
+    pdw, pdws = lstm_align.peer_dw(*pdw_in, cd), plains(cd, lambda c: lstm_align._peer_dw_reference(*pdw_in, c))
     torch.cuda.synchronize()
-    errs["dec_bwd"] = check_bwd("aligned_dec_bwd", list(zip(bw[0], bw_p[0])) + list(zip(bw[1:], bw_p[1:])),
-                                f"{what}, {rd}")
-    errs["peer_bwd"] = check_bwd("aligned_peer_bwd", list(zip(pb, pb_p)), f"{what}, {rd}")
-    errs["dec_dw"] = check_bwd("aligned_dec_dw", [(x.w, y.w) for x, y in zip(dps, dps_p)]
-                               + [(x.b, y.b) for x, y in zip(dps, dps_p)], f"{what}, {rd}")
-    errs["peer_dw"] = check_bwd("aligned_peer_dw", [(pdw.w, pdw_p.w), (pdw.b, pdw_p.b)], f"{what}, {rd}")
+    errs["dec_bwd"] = check_outputs("aligned_dec_bwd", grads(bw), [grads(b) for b in bws], what, "rec", cd)
+    errs["peer_bwd"] = check_outputs("aligned_peer_bwd", list(pb), [list(b) for b in pbs], what, "rec", cd,
+                                     unrounded=1)
+    errs["dec_dw"] = check_outputs("aligned_dec_dw", wb(dps), [wb(d) for d in dws], what, "ctx_sum", cd,
+                                   unrounded=layers)
+    errs["peer_dw"] = check_outputs("aligned_peer_dw", wb([pdw]), [wb([d]) for d in pdws], what, "sum", cd,
+                                    unrounded=1)
     return errs
 
 
@@ -788,6 +932,24 @@ def check_all_kernels(dev):
     print(f"aligned_ss_decode kernels vs plain, hidden 128, C=128, T=100, D=3, max_abs_err {json.dumps(errs)} "
           f"(forward {FWD_TOL}, plus one bf16 step on bf16 residuals; backward and reductions "
           f"{BWD_REL_TOL} of max|plain| per output)", flush=True)
+    errs = {}
+    for layers in (1, 2):
+        for rd in (F32, BF):
+            errs[f"B=4099 L={layers} {str(rd)[6:]}"] = check_lstm_kernels(dev, 4099, layers, rd, layers, BF)
+    for layers, ctx_dim in ((1, 0), (2, 128), (2, 64)):
+        for rd in (F32, BF):
+            for coins in ("bernoulli", "1", "0"):
+                key = f"B=4099 L={layers} C={ctx_dim} {str(rd)[6:]} coins={coins}"
+                errs[key] = check_ss_kernels(dev, 4099, layers, ctx_dim, rd, coins, layers, BF)
+    for layers, k, rd, coins in ((1, 3, F32, "bernoulli"), (1, 3, BF, "bernoulli"), (2, 7, F32, "bernoulli"),
+                                 (2, 7, BF, "bernoulli"), (2, 7, BF, "1"), (2, 7, BF, "0")):
+        key = f"B=4099 L={layers} K={k} {str(rd)[6:]} coins={coins}"
+        errs[key] = check_aligned_kernels(dev, 4099, layers, k, rd, coins, layers + k, BF)
+    print(f"bf16-compute tiers of lstm_seq_states (T=30), ss_decode (30+30 steps) and aligned_ss_decode (100+100 "
+          f"steps, C=128, a row with every peer masked), hidden 128, the largest gap to their bf16 and their f32 "
+          f"plain versions (absolute on forwards, of max|plain| per output on gradients) and the least floor "
+          f"ratio: {json.dumps(errs)} (limits: bf16 {json.dumps(BF16C_TIGHT)}, f32 {json.dumps(BF16C_CONTRACT)}, "
+          f"one bf16 step more on a forward value stored in bf16; floor {BF16C_FLOOR})", flush=True)
     errs = {f"{s[0]}x{s[1]}x{s[2]}->{hw[0]}x{hw[1]} C={c}": check_conv_resize(dev, s, hw, c, seed=i)
             for i, (s, hw, c) in enumerate((((3, 48, 96), (16, 32), 4), ((64, 960, 1920), (32, 64), 8),
                                             ((4099, 64, 128), (16, 32), 4), ((5, 12, 20), (16, 32), 4),
@@ -1252,6 +1414,88 @@ def time_training(cfg, state, train_d, path, smi, plain_iters, kernel_iters=20):
     return stepper("kernel")
 
 
+def drive_bf16_training(cfg, path, dev, also, smi, steps=6, rows=512, windows_=None, iters=10):
+    """``train --train-compute bfloat16``: :func:`drive_training` of a short
+    run (``steps``, an evaluation and a checkpoint every half, the resume
+    bit-equal) with every bf16-compute kernel of ``path`` launched and
+    counted apart from the f32 ones; one step's loss and gradients on the
+    card against the CPU port's (:func:`bf16_step_check`, ``rows`` windows);
+    the fast step against the f32 step, both through the kernels, in turns
+    (``iters`` steps each), and a profile of the bf16 step → the path's
+    launches."""
+    bcfg = cfg.replace(train_compute="bfloat16", steps=steps, eval_every=steps // 2, ckpt_every=steps // 2)
+    trained, train_d, launches = drive_training(bcfg, path, dev, also, windows_=windows_, step_check=False,
+                                                resume_tol=0.0)
+    bf16_step_check(bcfg, trained, train_d, path, rows)
+    fam = get_family(cfg.model_family)
+    batch = next(train.batch_iterator(train_d, cfg.batch_size, seed=2))
+    opt = train.make_optimizer(bcfg)
+    st = {}
+
+    def stepper(tc):
+        step = train.make_train_step(bcfg.replace(train_compute=tc), fam.apply, opt, gc_metric=False,
+                                     **family_fns(fam))
+        st[tc] = trained
+
+        def one():
+            st[tc] = step(st[tc], batch)[0]
+        return one
+
+    steps_ = {tc: stepper(tc) for tc in ("float32", "bfloat16")}
+    ms = in_turns(steps_, {"float32": iters, "bfloat16": iters})
+    print(f"{path}: train step (B={cfg.batch_size}, fast step, CUDA events, {smi}), through the kernels in "
+          f"the f32 and the bf16 compute type: {json.dumps({tc: {'ms_per_step': v} for tc, v in ms.items()})}",
+          flush=True)
+    profile_device(f"{path}: fast step", steps_["bfloat16"], max(2, iters // 2), smi)
+    return launches
+
+
+def bf16_step_check(cfg, state, train_d, path, rows):
+    """One step's loss and gradients under ``train_compute="bfloat16"`` on
+    ``rows`` windows at a mid-anneal teacher_prob, the same coins (drawn
+    from numpy and swapped in for the generator's draw on both sides): the
+    bf16 kernels on the card against the CPU port's bf16 plain versions,
+    and against the f32 step on the card: loss relative, gradients of
+    max|g| per leaf, the first within BF16C_TIGHT, the second within
+    BF16C_CONTRACT, and the card's gap to the f32 step at least BF16C_FLOOR
+    of the CPU port's."""
+    fam = get_family(cfg.model_family)
+    batch = next(train.batch_iterator(train_d, rows, seed=4))
+    tp = train.teacher_prob_at(cfg, cfg.steps // 2)
+    coins = torch.from_numpy((np.random.default_rng(19).random((cfg.model.h_out, rows, 1)) < tp)
+                             .astype(np.float32))
+    draw = seq2seq.draw_coins
+    seq2seq.draw_coins = lambda gen, p, t, b: coins.to(gen.device)
+    try:
+        cpu = tree_unflatten(state.params, [p.cpu() for p in tree_leaves(state.params)])
+        res = {}
+        for where, c, params in (("card", cfg, state.params), ("cpu", cfg, cpu),
+                                 ("card_f32", cfg.replace(train_compute="float32"), state.params)):
+            grad_fn = train.make_grad_fn(c, fam.apply, gc_metric=False, **family_fns(fam))
+            res[where] = grad_fn(params, batch, torch.Generator(device=tree_leaves(params)[0].device), tp)
+    finally:
+        seq2seq.draw_coins = draw
+
+    def gaps(x, y):
+        (l_x, _), g_x = res[x]
+        (l_y, _), g_y = res[y]
+        return {"loss": abs(l_x.item() - l_y.item()) / abs(l_y.item()),
+                "grads": max((a.cpu() - b.cpu()).abs().max().item() / (b.abs().max().item() or 1.0)
+                             for a, b in zip(tree_leaves(g_x), tree_leaves(g_y)))}
+
+    out = {"cpu": gaps("card", "cpu"), "card_f32": gaps("card", "card_f32"), "cpu_to_f32": gaps("cpu", "card_f32")}
+    print(f"{path}: one step (B={rows}, teacher_prob {tp:.3f}, the same coins), the bf16 kernels' step on the "
+          f"card vs the CPU port's bf16 plain step and vs the f32 step on the card, and the CPU port's vs the f32 "
+          f"step, loss relative, gradients relative to max|reference| per leaf: {json.dumps(out)} (limits: vs "
+          f"the CPU port loss {BF16C_TIGHT['loss']}, gradients {BF16C_TIGHT['step']}; vs f32 loss "
+          f"{BF16C_CONTRACT['loss']}, gradients {BF16C_CONTRACT['step']}; floor {BF16C_FLOOR} of the CPU "
+          f"port's gap to f32)", flush=True)
+    for key, lim in (("loss", "loss"), ("grads", "step")):
+        if not (out["cpu"][key] <= BF16C_TIGHT[lim] and out["card_f32"][key] <= BF16C_CONTRACT[lim]
+                and out["card_f32"][key] >= BF16C_FLOOR * out["cpu_to_f32"][key]):
+            raise AssertionError(f"{path}: the bf16 step's {key} through the kernels differs from its references")
+
+
 def profile_device(label, fn, iters, smi):
     """Where the device time goes over ``iters`` calls of ``fn``: the CUDA
     kernels torch.profiler (CUPTI) records, summed by name, and the device's
@@ -1300,13 +1544,31 @@ def cudnn_lstm(ps, in0, dev, training):
     return net.train(training)
 
 
-def dw_library(zs, dgates):
+def dw_library(zs, dgates, dtype=torch.float32):
     """One cuBLAS call for a stack of dW/db products: zᵀ · dgates per layer,
-    z = [input, h_{t-1}, 1] padded to one width → bmm. A yardstick only."""
+    z = [input, h_{t-1}, 1] padded to one width → bmm, on operands of
+    ``dtype`` (bf16: the bf16-compute tier's product). A yardstick only."""
     width = max(z.shape[1] for z in zs)
-    zt = torch.stack([torch.nn.functional.pad(z, (0, width - z.shape[1])).t() for z in zs])
-    dg = torch.stack([g.reshape(-1, g.shape[-1]) for g in dgates])
+    zt = torch.stack([torch.nn.functional.pad(z, (0, width - z.shape[1])).t() for z in zs]).to(dtype)
+    dg = torch.stack([g.reshape(-1, g.shape[-1]) for g in dgates]).to(dtype)
     return lambda: torch.bmm(zt, dg)
+
+
+def time_bf16_tier(calls, work, weights, iters, label, smi):
+    """Each bf16-compute kernel alone ("kernel") against its bf16 plain
+    version ("plain"), its f32-compute twin ("f32_kernel") and, for the
+    reductions, one cuBLAS call on bf16 operands ("library"), in turns;
+    recorded with its bound at the bf16 tensor-core peak (``work``: FLOP,
+    reads, writes; of the reads, ``weights`` are read in bf16, as the
+    wrapper rounds them)."""
+    bf16_ids = {id(w) for w in weights}
+    out = {}
+    for name, fns in calls.items():
+        out[name] = in_turns(fns, iters)
+        flop, reads, writes = work[name]
+        reads = [t.bfloat16() if id(t) in bf16_ids else t for t in reads]
+        record(name, out[name], flop, reads, writes, peak=BF16_FLOPS)
+    print(f"{label} ({smi}): {json.dumps(out)}", flush=True)
 
 
 def z_rows(inp, h_prev):
@@ -1355,6 +1617,22 @@ def time_lstm_kernels(dev, smi):
         record(name, out[name], flop + (2 * TRAIN_B * 30 * 4 * 128 if name.endswith("dw") else 0), *io[name])
     print(f"lstm_seq_states kernels alone (ms, B={TRAIN_B}, L=1, bf16 residuals, CUDA events; library: "
           f"cuDNN nn.LSTM forward, its backward data, one cuBLAS bmm; {smi}): {json.dumps(out)}", flush=True)
+    bcalls = {
+        "lstm_seq_states_fwd_bf16": dict(kernel=lambda: lstm_train.lstm_fwd(ps, xs, h0, c0, rd, BF),
+                                         plain=lambda: lstm_train._forward_reference(ps, xs, h0, c0, rd, BF)),
+        "lstm_seq_states_bwd_bf16": dict(kernel=lambda: lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=BF),
+                                         plain=lambda: lstm_train._bwd_recurrence_reference(ps, c0, res, *up, BF)),
+        "lstm_seq_states_dw_bf16": dict(kernel=lambda: lstm_train.lstm_dw(ps, xs, h0, res, dg, BF),
+                                        plain=lambda: lstm_train._dw_reference(ps, xs, h0, res, dg, BF),
+                                        library=dw_library([z_rows(xs, h_prev)], dg, BF)),
+    }
+    for name, fns in bcalls.items():
+        fns["f32_kernel"] = calls[name[:-5]]["kernel"]
+    bwork = {n: (flop + (2 * TRAIN_B * 30 * 4 * 128 if n.endswith("dw_bf16") else 0), *io[n[:-5]])
+             for n in bcalls}
+    time_bf16_tier(bcalls, bwork, [ps[0].w], {"plain": 3, "kernel": 10, "f32_kernel": 10, "library": 10},
+                   f"lstm_seq_states bf16-compute kernels alone (ms, B={TRAIN_B}, L=1, bf16 residuals, CUDA "
+                   f"events, against the f32-compute kernels; library: one cuBLAS bmm on bf16 operands)", smi)
 
 
 # --------------------------------------------------------------- stacked-ss-crossuser serving
@@ -1594,6 +1872,26 @@ def time_ss_kernels(dev, smi):
         record(name, out[name], *work[name])
     print(f"ss_decode kernels alone (ms, B={TRAIN_B}, L={layers}, C={ctx_dim}, bf16 residuals, Bernoulli "
           f"coins, CUDA events; library: one cuBLAS bmm / matmul; {smi}): {json.dumps(out)}", flush=True)
+    h1b, dyb = h1.bfloat16(), dy.reshape(-1, 3).bfloat16()
+    bcalls = {
+        "ss_decode_fwd_bf16": dict(kernel=lambda: lstm_ss.ss_fwd(*ss_fwd_args(ps, a), rd, BF),
+                                   plain=lambda: lstm_ss._forward_reference(*ss_fwd_args(ps, a), rd, BF)),
+        "ss_decode_bwd_bf16": dict(kernel=lambda: lstm_ss.ss_bwd(*bwd_args, BF),
+                                   plain=lambda: lstm_ss._bwd_recurrence_reference(*bwd_args, compute_dtype=BF)),
+        "ss_decode_dw_bf16": dict(kernel=lambda: lstm_ss.ss_dw(*dw_in, BF),
+                                  plain=lambda: lstm_ss._dw_reference(*dw_in, BF),
+                                  library=dw_library(zs, dgates, BF)),
+        "ss_decode_dproj_bf16": dict(kernel=lambda: lstm_ss.ss_dproj(res.hs[-1], dy, BF),
+                                     plain=lambda: lstm_ss._dproj_reference(res.hs[-1], dy, BF),
+                                     library=lambda: h1b.t() @ dyb),
+    }
+    for name, fns in bcalls.items():
+        fns["f32_kernel"] = calls[name[:-5]]["kernel"]
+    time_bf16_tier(bcalls, {n: work[n[:-5]] for n in bcalls}, [p.w for p in ps] + [a["proj_w"]],
+                   {"plain": 3, "kernel": 10, "f32_kernel": 10, "library": 10},
+                   f"ss_decode bf16-compute kernels alone (ms, B={TRAIN_B}, L={layers}, C={ctx_dim}, bf16 "
+                   f"residuals, Bernoulli coins, CUDA events, against the f32-compute kernels; library: one "
+                   f"cuBLAS bmm / matmul on bf16 operands; none computes a recurrence with feedback)", smi)
 
 
 def time_aligned_kernels(dev, smi):
@@ -1679,6 +1977,34 @@ def time_aligned_kernels(dev, smi):
     print(f"aligned_ss_decode kernels alone (ms, B={TRAIN_B}, K={k}, T={t}, L={layers}, C=H=128, bf16 residuals, "
           f"Bernoulli coins, CUDA events; library: cuDNN nn.LSTM forward and backward data over the peer "
           f"rows, one cuBLAS bmm / matmul; {smi}): {json.dumps(out)}", flush=True)
+    zpb, dpg2b = zp.bfloat16(), dpg2.bfloat16()
+    bcalls = {}
+    for cd in (BF, torch.float32):
+        for name, fn in (
+                ("aligned_peer_fwd", lambda cd=cd: lstm_align.peer_fwd(peer, pxs, pwt, rd, cd)),
+                ("aligned_dec_fwd", lambda cd=cd: lstm_align.dec_fwd(*fwd_args, rd, cd)),
+                ("aligned_dec_bwd", lambda cd=cd: lstm_align.dec_bwd(*bwd_args, cd)),
+                ("aligned_peer_bwd", lambda cd=cd: lstm_align.peer_bwd(peer, pxs, pwt, php, pcp, dctx, cd)),
+                ("aligned_dec_dw", lambda cd=cd: lstm_align.dec_dw(*dw_in, cd)),
+                ("aligned_peer_dw", lambda cd=cd: lstm_align.peer_dw(peer, pxs, php, dpg, cd))):
+            bcalls.setdefault(f"{name}_bf16", {})["kernel" if cd == BF else "f32_kernel"] = fn
+    for name, fn in (
+            ("aligned_peer_fwd_bf16", lambda: lstm_align._peer_fwd_reference(peer, pxs, pwt, rd, BF)),
+            ("aligned_dec_fwd_bf16", lambda: lstm_ss._forward_reference(*fwd_args, rd, BF)),
+            ("aligned_dec_bwd_bf16", lambda: lstm_ss._bwd_recurrence_reference(*bwd_args, step_ctx=True,
+                                                                               compute_dtype=BF)),
+            ("aligned_peer_bwd_bf16", lambda: lstm_align._peer_bwd_reference(peer, pxs, pwt, php, pcp, dctx, BF)),
+            ("aligned_dec_dw_bf16", lambda: lstm_align._dw_reference(*dw_in, BF)),
+            ("aligned_peer_dw_bf16", lambda: lstm_align._peer_dw_reference(peer, pxs, php, dpg, BF))):
+        bcalls[name]["plain"] = fn
+    bcalls["aligned_dec_dw_bf16"]["library"] = dw_library(zs, dgates, BF)
+    bcalls["aligned_peer_dw_bf16"]["library"] = lambda: zpb.t() @ dpg2b
+    time_bf16_tier(bcalls, {n: work[n[:-5]] for n in bcalls}, [p.w for p in ps] + [peer.w, a["proj_w"]],
+                   {"plain": 1, "kernel": 3, "f32_kernel": 3, "library": 3},
+                   f"aligned_ss_decode bf16-compute kernels alone (ms, B={TRAIN_B}, K={k}, T={t}, L={layers}, "
+                   f"C=H=128, bf16 residuals, Bernoulli coins, CUDA events, against the f32-compute kernels; "
+                   f"library: one cuBLAS bmm / matmul on bf16 operands; none computes a recurrence with "
+                   f"feedback)", smi)
 
 
 # --------------------------------------------------------------- video-fusion: features
@@ -2727,6 +3053,8 @@ def main():
     trained, train_d, s2s_train = drive_training(tcfg, S2S_TRAIN, dev, also=["fused_serve"])
     time_training(tcfg, trained, train_d, S2S_TRAIN, smi, plain_iters=5)
     time_lstm_kernels(dev, smi)
+    # train --train-compute bfloat16: both kernels of the stack in the bf16 compute type
+    s2s_train_bf16 = drive_bf16_training(tcfg, S2S_TRAIN_BF16, dev, ["fused_serve"], smi)
 
     phase("6 serve stacked-ss-crossuser")
     # 6. stacked-ss-crossuser serving
@@ -2748,6 +3076,11 @@ def main():
     step = time_training(ctcfg, ctrained, ctrain_d, CU_TRAIN, smi, plain_iters=2)
     profile_device(f"{CU_TRAIN}: fast step", step, 5, smi)
     time_ss_kernels(dev, smi)
+    # the bf16 compute type: the encoder and the decoder in bf16, the static
+    # context's peer encoder in f32, as in JAX
+    cu_train_bf16 = drive_bf16_training(ctcfg, CU_TRAIN_BF16, dev, [
+        "fused_serve", "fused_encode", "lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw",
+        "lstm_seq_states_fwd_bf16", "lstm_seq_states_bwd_bf16", "lstm_seq_states_dw_bf16"], smi)
     torch.cuda.empty_cache()
 
     phase("8 serve stacked-ss-crossuser-10s")
@@ -2776,6 +3109,12 @@ def main():
     del step, c10trained
     torch.cuda.empty_cache()
     time_aligned_kernels(dev, smi)
+    torch.cuda.empty_cache()
+    # the bf16 compute type: peers, decoder and (f32 residuals) the encoder
+    cu10_train_bf16 = drive_bf16_training(c10tcfg, CU10_TRAIN_BF16, dev, [
+        "fused_serve_peers", "peer_context", "lstm_seq_states_fwd_bf16", "lstm_seq_states_bwd_bf16",
+        "lstm_seq_states_dw_bf16", "ss_decode_dproj_bf16"], smi, steps=4, rows=256, iters=3)
+    torch.cuda.empty_cache()
 
     phase("10 features video-fusion")
     # 10. the feature path: extract-features on the card, prepare-data --features
@@ -2804,6 +3143,11 @@ def main():
     profile_device(f"{FU_TRAIN}: fast step", step, 5, smi)
     maps_step(ftcfg, ftrained, dev, smi)
     del step, ftrained
+    torch.cuda.empty_cache()
+    drive_bf16_training(ftcfg, FU_TRAIN_BF16, dev, [
+        "fused_serve", "lstm_seq_states_fwd_bf16", "lstm_seq_states_bwd_bf16", "lstm_seq_states_dw_bf16",
+        "ss_decode_fwd_bf16", "ss_decode_bwd_bf16", "ss_decode_dw_bf16", "ss_decode_dproj_bf16"], smi,
+        windows_=fu_windows)
     torch.cuda.empty_cache()
 
     phase("13 serve transformer-30")
@@ -2881,7 +3225,8 @@ def main():
     launches = {S2S_SERVE: s2s_serve, S2S_CELL: s2s_cell, S2S_DECODE: s2s_decode, S2S_TRAIN: s2s_train,
                 CU_SERVE: cu_serve, CU_TRAIN: cu_train, CU10_SERVE: cu10_serve, CU10_TRAIN: cu10_train,
                 FE_PATH: fe_launches, TF_SERVE: tf_serve, TF_SERVE_F32: tf_serve_f32, TF_TRAIN: tf_train,
-                TF10_GROUPED_F32: tf10_grouped_f32}
+                TF10_GROUPED_F32: tf10_grouped_f32, S2S_TRAIN_BF16: s2s_train_bf16, CU_TRAIN_BF16: cu_train_bf16,
+                CU10_TRAIN_BF16: cu10_train_bf16}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
          "launches": launches[path][name], "max_abs_err": ERRS[name], **TIMES[name]}

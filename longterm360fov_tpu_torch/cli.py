@@ -36,7 +36,7 @@ _NOT_PORTED = {
     "data_parallel": "--data-parallel: ROADMAP.md, slice 'parallelism'",
     "seq_parallel": "--seq-parallel: ROADMAP.md, slice 'parallelism'",
     "pipeline_parallel": "--pipeline-parallel: ROADMAP.md, slice 'parallelism'",
-    "bf16": "--bf16: ROADMAP.md Queue 2, the lstm_seq_states bf16-compute tier",
+    "bf16": "--bf16: parameter dtype bfloat16: ROADMAP.md slice I-c",
     "tb_dir": "--tb-dir: ROADMAP.md, slice 'the TCP daemon and CLI'",
 }
 
@@ -445,12 +445,8 @@ def cmd_train(args):
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"not ported yet: {item}")
-    if args.train_compute == "bfloat16":
-        raise SystemExit(
-            "not ported yet: --train-compute bfloat16: ROADMAP.md Queue 2, the "
-            "lstm_seq_states bf16-compute tier"
-        )
-    over = {k: getattr(args, k) for k in ("steps", "batch_size", "lr", "accum", "gc_weight")
+    over = {k: getattr(args, k) for k in ("steps", "batch_size", "lr", "accum", "gc_weight",
+                                          "train_compute")
             if getattr(args, k) is not None}
     cfg = get_preset(args.preset, **_overrides(args, **over))
     fam = get_family(cfg.model_family)

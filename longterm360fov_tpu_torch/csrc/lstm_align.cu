@@ -1,5 +1,6 @@
 // Lockstep-peer scheduled-sampling decoder for training, forward and
-// backward, for Hopper (sm_90a), exact f32 compute, residuals in f32 or bf16.
+// backward, for Hopper (sm_90a), f32 or bf16 compute, residuals in f32 or
+// bf16.
 //
 // Replaces the TPU Pallas kernels of
 //   longterm360fov_tpu/ops/lstm_align.py::aligned_ss_decode
@@ -28,6 +29,12 @@
 //     rebuilds it: the DW_ALIGN loader) and the peer encoder's, the
 //     teacher-forced loader over the B·K·T rows with z = [pxs_t, h_{t-1}];
 //   * dproj: lstm_ss.cu's ss_dproj, launched by the wrapper.
+// The bf16 compute type (lstm_common.cuh) rounds the operands of the peer
+// gates [pxs_t, h_{t-1}]·Wp in the forward and in the backward's recomputed
+// gates alike (the residual h_{t-1} is the forward's h rounded to the residual
+// type, whose bf16 rounding is the same), dgates·Wpᵀ and the peer dW; ctx_t
+// is formed from the unrounded h and rounded only where it enters the
+// decoder's layer-0 product; dpwt is an elementwise sum and stays f32.
 // The dependencies allow the split: the peer forward reads nothing of the
 // decoder, and the decoder backward hands dctx_t to the peers and takes
 // nothing back. So the peer recurrences run over B·K rows (K times the
@@ -57,11 +64,11 @@
 // p0 = b0·K (contiguous in the (B·K, T, ·) layout). Per step: x_t = pxs_t,
 // one cell step (fwd_layer_step, h and c stored), then ctx_t of the block's
 // viewers from the f32 h in shared memory.
-template <typename RT>
+template <typename RT, typename CT>
 __global__ void __launch_bounds__(256)
     align_peer_fwd_kernel(const float* __restrict__ pxs,
                           const float* __restrict__ pwt,
-                          const float* __restrict__ wp,
+                          const CT* __restrict__ wp,
                           const float* __restrict__ bp, RT* __restrict__ php,
                           RT* __restrict__ pcp, float* __restrict__ ctx, int B,
                           int K, int T, int D, int C, int RV) {
@@ -107,13 +114,14 @@ __global__ void __launch_bounds__(256)
 // ---------------------------------------------------------------------------
 
 // Block: R peer rows from row0 = blockIdx.x · R. wpt is Wp[D:]ᵀ (4C, C),
-// which gives the carried dh; Wp's first D rows give dpxs.
-template <typename RT>
+// which gives the carried dh; Wp's first D rows give dpxs. Wp and wpt are in
+// the compute type CT.
+template <typename RT, typename CT>
 __global__ void __launch_bounds__(256)
     align_peer_bwd_kernel(const float* __restrict__ pxs,
                           const float* __restrict__ pwt,
-                          const float* __restrict__ wp,
-                          const float* __restrict__ wpt,
+                          const CT* __restrict__ wp,
+                          const CT* __restrict__ wpt,
                           const float* __restrict__ bp,
                           const RT* __restrict__ php,
                           const RT* __restrict__ pcp,
@@ -241,11 +249,12 @@ extern "C" {
 // wp (d + ctx_dim, 4·ctx_dim), bp (4·ctx_dim,) → php, pcp (batch·n_peers,
 // t_len, ctx_dim) residual type, ctx (batch, t_len, ctx_dim) f32. rows_v
 // viewers a block: (rows_v·n_peers / 4)·(ctx_dim / 4) threads and
-// (2·ctx_dim + d + 1)·rows_v·n_peers floats of dynamic shared memory.
+// (2·ctx_dim + d + 1)·rows_v·n_peers floats of dynamic shared memory. bf16:
+// residuals in bf16; cbf16: the bf16 compute type, wp in bf16.
 int align_peer_fwd(const void* pxs, const void* pwt, const void* wp,
                    const void* bp, void* php, void* pcp, void* ctx, int batch,
                    int n_peers, int t_len, int d, int ctx_dim, int rows_v,
-                   int bf16, void* stream) {
+                   int bf16, int cbf16, void* stream) {
   const int rows = rows_v * n_peers;
   if (batch < 1 || n_peers < 1 || t_len < 1 || d < 1 || ctx_dim < 32 ||
       ctx_dim % 32 || rows_v < 1 || rows % TR ||
@@ -257,17 +266,19 @@ int align_peer_fwd(const void* pxs, const void* pwt, const void* wp,
   const int grid = (batch + rows_v - 1) / rows_v;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float *x = static_cast<const float*>(pxs), *w = static_cast<const float*>(pwt),
-              *W = static_cast<const float*>(wp), *b = static_cast<const float*>(bp);
+              *b = static_cast<const float*>(bp);
   float* out = static_cast<float*>(ctx);
-  if (bf16)
-    return launch_with_smem(align_peer_fwd_kernel<__nv_bfloat16>, grid, threads,
-                            smem, st, x, w, W, b, static_cast<__nv_bfloat16*>(php),
-                            static_cast<__nv_bfloat16*>(pcp), out, batch, n_peers,
-                            t_len, d, ctx_dim, rows_v);
-  return launch_with_smem(align_peer_fwd_kernel<float>, grid, threads, smem, st,
-                          x, w, W, b, static_cast<float*>(php),
-                          static_cast<float*>(pcp), out, batch, n_peers, t_len,
-                          d, ctx_dim, rows_v);
+#define PEER_FWD(RT, CT)                                                         \
+  launch_with_smem(align_peer_fwd_kernel<RT, CT>, grid, threads, smem, st, x, w, \
+                   static_cast<const CT*>(wp), b, static_cast<RT*>(php),         \
+                   static_cast<RT*>(pcp), out, batch, n_peers, t_len, d,         \
+                   ctx_dim, rows_v)
+  using BF = __nv_bfloat16;
+  if (bf16 && cbf16) return PEER_FWD(BF, BF);
+  if (bf16) return PEER_FWD(BF, float);
+  if (cbf16) return PEER_FWD(float, BF);
+  return PEER_FWD(float, float);
+#undef PEER_FWD
 }
 
 // The decoder's recurrences with a per-step context: ctx and dctx (batch,
@@ -278,11 +289,11 @@ int align_dec_fwd(const void* h0, const void* c0, const void* y0,
                   const void* proj_w, const void* proj_b, void* const* hs,
                   void* const* cs, void* const* gs, void* ys, int batch,
                   int t_len, int d, int ctx_dim, int hidden, int layers,
-                  int rows, int bf16, void* stream) {
+                  int rows, int bf16, int cbf16, void* stream) {
   if (ctx == nullptr || ctx_dim < 1) return (int)cudaErrorInvalidValue;
   return ss_fwd_launch<true>(h0, c0, y0, teacher, coins, ctx, w, b, proj_w,
                              proj_b, hs, cs, gs, ys, batch, t_len, d, ctx_dim,
-                             hidden, layers, rows, bf16, stream);
+                             hidden, layers, rows, bf16, cbf16, stream);
 }
 
 int align_dec_bwd(const void* dys, const void* c0, const void* coins,
@@ -291,23 +302,24 @@ int align_dec_bwd(const void* dys, const void* c0, const void* coins,
                   const void* const* gs, void* const* dg, void* dy,
                   void* dteacher, void* dy0, void* dh0, void* dc0, void* dctx,
                   int batch, int t_len, int d, int ctx_dim, int hidden,
-                  int layers, int rows, int bf16, void* stream) {
+                  int layers, int rows, int bf16, int cbf16, void* stream) {
   if (wtc == nullptr || dctx == nullptr || ctx_dim < 1) return (int)cudaErrorInvalidValue;
   return ss_bwd_launch<true>(dys, c0, coins, w0, wt, wtc, proj_w, cs, gs, dg,
                              dy, dteacher, dy0, dh0, dc0, dctx, batch, t_len, d,
-                             ctx_dim, hidden, layers, rows, bf16, stream);
+                             ctx_dim, hidden, layers, rows, bf16, cbf16, stream);
 }
 
 // The peer backward recurrence: rows peer rows a block, (rows / 4)·(ctx_dim
 // / 4) threads and ((d + ctx_dim) + 4·ctx_dim + 2·ctx_dim + ctx_dim / 4)·rows
 // floats of dynamic shared memory. wpt is Wp[d:]ᵀ (4·ctx_dim, ctx_dim); dctx
 // (batch, t_len, ctx_dim); out: dpg (batch·n_peers, t_len, 4·ctx_dim), dpxs
-// (batch·n_peers, t_len, d), dpwt (batch, n_peers).
+// (batch·n_peers, t_len, d), dpwt (batch, n_peers). wp and wpt in bf16 when
+// cbf16.
 int align_peer_bwd(const void* pxs, const void* pwt, const void* wp,
                    const void* wpt, const void* bp, const void* php,
                    const void* pcp, const void* dctx, void* dpg, void* dpxs,
                    void* dpwt, int batch, int n_peers, int t_len, int d,
-                   int ctx_dim, int rows, int bf16, void* stream) {
+                   int ctx_dim, int rows, int bf16, int cbf16, void* stream) {
   const long long peers = (long long)batch * n_peers;
   if (batch < 1 || n_peers < 1 || t_len < 1 || d < 1 || ctx_dim < 32 ||
       ctx_dim % 32 || rows < TR || rows % TR ||
@@ -319,20 +331,20 @@ int align_peer_bwd(const void* pxs, const void* pwt, const void* wp,
   const int grid = (int)((peers + rows - 1) / rows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float *x = static_cast<const float*>(pxs), *w = static_cast<const float*>(pwt),
-              *W = static_cast<const float*>(wp), *Wt = static_cast<const float*>(wpt),
               *b = static_cast<const float*>(bp), *dc = static_cast<const float*>(dctx);
   float *o_g = static_cast<float*>(dpg), *o_x = static_cast<float*>(dpxs),
         *o_w = static_cast<float*>(dpwt);
-  if (bf16)
-    return launch_with_smem(align_peer_bwd_kernel<__nv_bfloat16>, grid, threads,
-                            smem, st, x, w, W, Wt, b,
-                            static_cast<const __nv_bfloat16*>(php),
-                            static_cast<const __nv_bfloat16*>(pcp), dc, o_g, o_x,
-                            o_w, (int)peers, n_peers, t_len, d, ctx_dim, rows);
-  return launch_with_smem(align_peer_bwd_kernel<float>, grid, threads, smem, st,
-                          x, w, W, Wt, b, static_cast<const float*>(php),
-                          static_cast<const float*>(pcp), dc, o_g, o_x, o_w,
-                          (int)peers, n_peers, t_len, d, ctx_dim, rows);
+#define PEER_BWD(RT, CT)                                                          \
+  launch_with_smem(align_peer_bwd_kernel<RT, CT>, grid, threads, smem, st, x, w,  \
+                   static_cast<const CT*>(wp), static_cast<const CT*>(wpt), b,    \
+                   static_cast<const RT*>(php), static_cast<const RT*>(pcp), dc,  \
+                   o_g, o_x, o_w, (int)peers, n_peers, t_len, d, ctx_dim, rows)
+  using BF = __nv_bfloat16;
+  if (bf16 && cbf16) return PEER_BWD(BF, BF);
+  if (bf16) return PEER_BWD(BF, float);
+  if (cbf16) return PEER_BWD(float, BF);
+  return PEER_BWD(float, float);
+#undef PEER_BWD
 }
 
 // dW/db of every decoder layer; layer 0's context rebuilt from php and pwt
@@ -343,12 +355,12 @@ int align_dec_dw(const void* h0, const void* y0, const void* teacher,
                  const void* const* gs, const void* const* dg, void* partial,
                  void* const* dw, void* const* db, int batch, int t_len, int d,
                  int ctx_dim, int n_peers, int hidden, int layers, int splits,
-                 int bf16, void* stream) {
+                 int bf16, int cbf16, void* stream) {
   if (php == nullptr || pwt == nullptr || n_peers < 1 || ctx_dim < 1)
     return (int)cudaErrorInvalidValue;
-  return ss_dw_layers(h0, y0, teacher, coins, nullptr, php, pwt, n_peers, ys,
+  return ss_dw_layers<DW_ALIGN>(h0, y0, teacher, coins, nullptr, php, pwt, n_peers, ys,
                       hs, cs, gs, dg, partial, dw, db, batch, t_len, d, ctx_dim,
-                      hidden, layers, splits, bf16, stream);
+                      hidden, layers, splits, bf16, cbf16, stream);
 }
 
 // dWp (d + ctx_dim, 4·ctx_dim) and dbp over the peers·t_len rows:
@@ -358,7 +370,7 @@ int align_dec_dw(const void* h0, const void* y0, const void* teacher,
 int align_peer_dw(const void* pxs, const void* h0, const void* php,
                   const void* dpg, void* partial, void* dw, void* db,
                   int peers, int t_len, int d, int ctx_dim, int splits,
-                  int bf16, void* stream) {
+                  int bf16, int cbf16, void* stream) {
   if (peers < 1 || t_len < 1 || d < 1 || ctx_dim < 32 || ctx_dim % 32 ||
       splits < 1 || (long long)peers * t_len >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -367,9 +379,10 @@ int align_peer_dw(const void* pxs, const void* h0, const void* php,
   a.h0 = static_cast<const float*>(h0);
   a.hs = php;
   a.dg = static_cast<const float*>(dpg);
-  return (int)dw_layer(a, static_cast<float*>(partial), static_cast<float*>(dw),
+  return (int)dw_layer<DW_TF>(a, static_cast<float*>(partial), static_cast<float*>(dw),
                        static_cast<float*>(db), peers, t_len, d, ctx_dim, d,
-                       splits, bf16 != 0, static_cast<cudaStream_t>(stream));
+                       splits, bf16 != 0, cbf16 != 0,
+                       static_cast<cudaStream_t>(stream));
 }
 
 const char* lstm_align_error_string(int code) {

@@ -1,7 +1,16 @@
-// Device code shared by the training kernels of lstm_train.cu and lstm_ss.cu,
-// for Hopper (sm_90a), exact f32 compute, residuals in f32 or bf16:
+// Device code shared by the training kernels of lstm_train.cu, lstm_ss.cu
+// and lstm_align.cu, for Hopper (sm_90a), f32 or bf16 compute, residuals in
+// f32 or bf16:
 //   * Res<RT>, the residual type (f32, or bf16 rounded to nearest even as
 //     torch and XLA cast);
+//   * the compute type CT: float, exact f32 products; __nv_bfloat16, the
+//     bf16-compute tier of the TPU kernels (compute_dtype=bfloat16): both
+//     operands of every product are rounded to bf16 and the products summed
+//     in f32. Weights arrive in CT, rounded once per call by the wrapper
+//     (half the bytes of f32 from L2); an activation (h, x, dgates, dy) is
+//     kept in f32 and rounded where it enters a product (cround). Carries,
+//     gates, the cell update, residual stores and the sums db, dproj_b stay
+//     f32;
 //   * the thread tile: TR = 4 batch rows x TJ = 4 hidden units per thread,
 //     a layer input held k-major (K, R) in shared memory, and accumulate<NG>,
 //     the FMA loop that reads W rows with 16-byte loads;
@@ -21,6 +30,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #define MAX_LAYERS 8
 #define TR 4        // batch rows per thread
@@ -84,29 +95,65 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// ---------------------------------------------------------------------------
+// compute type: x as a product operand of the CT tier
+// ---------------------------------------------------------------------------
+
+template <typename CT>
+__device__ __forceinline__ float cround(float x) {
+  if constexpr (std::is_same<CT, float>::value)
+    return x;
+  else
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// weights through the read-only path: 4 consecutive (one 16-byte load in
+// f32, one 8-byte load in bf16), and one
+__device__ __forceinline__ void ldw4(const float* p, float (&w)[4]) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+}
+
+__device__ __forceinline__ void ldw4(const __nv_bfloat16* p, float (&w)[4]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  w[0] = lo.x;
+  w[1] = lo.y;
+  w[2] = hi.x;
+  w[3] = hi.y;
+}
+
+__device__ __forceinline__ float ldw1(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float ldw1(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
 // acc[g][r][j] += sum_{k<K} z[k][r0 + r] * W[k][g * goff + j0 + j].
 // z is k-major (K, R) in shared memory, so the thread's 4 rows are one
-// float4 (a broadcast: a warp shares its rows); W rows are ldw floats long.
-template <int NG>
+// float4 (a broadcast: a warp shares its rows), rounded to CT as they enter
+// the product; W (CT) rows are ldw values long.
+template <int NG, typename CT>
 __device__ __forceinline__ void accumulate(float (&acc)[NG][TR][TJ],
                                            const float* z, int K,
-                                           const float* __restrict__ W,
+                                           const CT* __restrict__ W,
                                            int ldw, int goff, int R, int r0,
                                            int j0) {
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
     float a[TR];
     F::ld4(z + k * R + r0, a);
-    const float* wk = W + (size_t)k * ldw + j0;
+#pragma unroll
+    for (int r = 0; r < TR; ++r) a[r] = cround<CT>(a[r]);
+    const CT* wk = W + (size_t)k * ldw + j0;
     float w[NG][TJ];
 #pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(wk + g * goff));
-      w[g][0] = v.x;
-      w[g][1] = v.y;
-      w[g][2] = v.z;
-      w[g][3] = v.w;
-    }
+    for (int g = 0; g < NG; ++g) ldw4(wk + g * goff, w[g]);
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
@@ -164,10 +211,11 @@ __device__ __forceinline__ void load_states(float* h_s, float* c_s,
 // cell update, and the residual stores. in: (k_in, R) layer input; h: (H, R)
 // this layer's hidden state, read and then overwritten; c: this layer's cell
 // state, owner-private [TR * TJ][nthr]. GATES = false stores h and c only
-// (the lockstep peer encoder, whose backward recomputes its gates).
-template <typename RT, bool GATES = true>
+// (the lockstep peer encoder, whose backward recomputes its gates). W is in
+// the compute type CT.
+template <typename RT, bool GATES = true, typename CT>
 __device__ __forceinline__ void fwd_layer_step(
-    const float* in, int k_in, float* h, float* c, const float* __restrict__ W,
+    const float* in, int k_in, float* h, float* c, const CT* __restrict__ W,
     const float* __restrict__ bias, RT* hs, RT* cs, RT* gs, long long row0,
     int B, int T, int t, int H, int R, int r0, int j0, int tid, int nthr) {
   float acc[4][TR][TJ];
@@ -269,22 +317,22 @@ __device__ __forceinline__ void bwd_cell_step(
 // The gradient of layer 0's first D input features at the block's rows below
 // B: dx[r][d] = sum_k dg_s[k][r] * W[d][k] over the G = 4H gate columns of
 // W's rows d < D, a thread per (row, d) with four partial sums; fn(r, d, dx)
-// takes each.
-template <typename Fn>
+// takes each. W is in the compute type CT, dgates rounded to it.
+template <typename CT, typename Fn>
 __device__ __forceinline__ void input_grad(const float* dg_s,
-                                           const float* __restrict__ W, int D,
+                                           const CT* __restrict__ W, int D,
                                            int G, int R, long long row0, int B,
                                            int tid, int nthr, Fn fn) {
   for (int i = tid; i < R * D; i += nthr) {
     const int r = i % R, d = i / R;
     if (row0 + r >= B) continue;
-    const float* wd = W + (size_t)d * G;
+    const CT* wd = W + (size_t)d * G;
     float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
     for (int k = 0; k < G; k += 4) {
-      s0 = fmaf(dg_s[k * R + r], __ldg(wd + k), s0);
-      s1 = fmaf(dg_s[(k + 1) * R + r], __ldg(wd + k + 1), s1);
-      s2 = fmaf(dg_s[(k + 2) * R + r], __ldg(wd + k + 2), s2);
-      s3 = fmaf(dg_s[(k + 3) * R + r], __ldg(wd + k + 3), s3);
+      s0 = fmaf(cround<CT>(dg_s[k * R + r]), ldw1(wd + k), s0);
+      s1 = fmaf(cround<CT>(dg_s[(k + 1) * R + r]), ldw1(wd + k + 1), s1);
+      s2 = fmaf(cround<CT>(dg_s[(k + 2) * R + r]), ldw1(wd + k + 2), s2);
+      s3 = fmaf(cround<CT>(dg_s[(k + 3) * R + r]), ldw1(wd + k + 3), s3);
     }
     fn(r, d, (s0 + s1) + (s2 + s3));
   }
@@ -392,13 +440,18 @@ __device__ __forceinline__ void z_quad(const DwArgs& a, int q, int f, int B,
 
 // Block (n tile, f tile, slice s): partial[s][row(f)][n] = sum over the
 // slice's rows q of z[q][f] * dg[q][n], for the M + 1 features of z and the
-// constant (M = in + H).
-template <typename RT, int MODE>
+// constant (M = in + H). In the bf16 compute type z and dg are rounded as
+// they are staged, and the constant's row, db, is summed apart from the
+// unrounded dg: each thread stages one column quad (e % 32 == tid % 32) and
+// sums it, and the block adds its 8 warps' sums in order.
+template <typename RT, int MODE, typename CT>
 __global__ void __launch_bounds__(256, 2)
     lstm_dw_partial_kernel(const DwArgs a, float* __restrict__ partial, int B,
                            int T, int D, int H, int in, int chunk) {
+  constexpr bool ROUND = !std::is_same<CT, float>::value;
   __shared__ __align__(16) float As[DW_K][DW_T];
   __shared__ __align__(16) float Bs[DW_K][DW_T];
+  float db_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // ROUND: Σ of the unrounded dg
   const int N = 4 * H, M = in + H;  // features: M, and the constant
   const int n0 = blockIdx.x * DW_T, f0 = blockIdx.y * DW_T;
   const int Q = B * T;
@@ -432,6 +485,14 @@ __global__ void __launch_bounds__(256, 2)
 #pragma unroll
     for (int i = 0; i < DW_Q; ++i) {
       const int e = tid + 256 * i;
+      if constexpr (ROUND) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          db_acc[c] += ga[i][c];
+          za[i][c] = cround<CT>(za[i][c]);
+          ga[i][c] = cround<CT>(ga[i][c]);
+        }
+      }
       F::st4(&As[e / 32][4 * (e % 32)], za[i]);
       F::st4(&Bs[e / 32][4 * (e % 32)], ga[i]);
     }
@@ -466,12 +527,24 @@ __global__ void __launch_bounds__(256, 2)
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int f = f0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (f > M) continue;
+    if (f > M || (ROUND && f == M)) continue;
     const int m = f < H ? in + f : f < M ? f - H : M;  // output row
     *reinterpret_cast<float4*>(P + (size_t)m * N + n0 + tx * 4) =
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     *reinterpret_cast<float4*>(P + (size_t)m * N + n0 + 64 + tx * 4) =
         make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  if constexpr (ROUND) {
+    if (f0 + DW_T > M) {  // this f tile holds the constant: write db
+      float* red = &As[0][0];  // free after the loop's last barrier
+      F::st4(red + (tid / 32) * DW_T + 4 * (tid % 32), db_acc);
+      __syncthreads();
+      if (tid < DW_T) {
+        float s = 0.0f;
+        for (int w = 0; w < 8; ++w) s += red[w * DW_T + tid];
+        P[(size_t)M * N + n0 + tid] = s;
+      }
+    }
   }
 }
 
@@ -491,30 +564,28 @@ __global__ void lstm_dw_sum_kernel(const float* __restrict__ partial, int S,
   }
 }
 
-// dW (in + H, 4H) and db (4H,) of one layer: the partial sums over `splits`
-// slices of the B·T rows into `partial` (splits x (in + H + 1) x 4H floats),
-// then their sum in a fixed order. Returns cudaGetLastError().
+// dW (in + H, 4H) and db (4H,) of one layer with the z loader MODE (a
+// DwMode; a template parameter, so that each source instantiates only the
+// loaders it uses): the partial sums over `splits` slices of the B·T rows
+// into `partial` (splits x (in + H + 1) x 4H floats), then their sum in a
+// fixed order; residuals bf16 (bf16) or f32, compute bf16 (cbf16) or f32.
+// Returns cudaGetLastError().
+template <int MODE>
 static inline cudaError_t dw_layer(const DwArgs& a, float* partial, float* dw,
                                    float* db, int batch, int t_len, int d,
                                    int hidden, int in, int splits, bool bf16,
-                                   cudaStream_t st) {
+                                   bool cbf16, cudaStream_t st) {
   const int Q = batch * t_len, N = 4 * hidden, M = in + hidden;
   int chunk = (Q + splits - 1) / splits;
   chunk = (chunk + DW_K - 1) / DW_K * DW_K;
   const dim3 grid(N / DW_T, (M + 1 + DW_T - 1) / DW_T, splits);
-#define DW_PARTIAL(RT, MODE) \
-  lstm_dw_partial_kernel<RT, MODE><<<grid, 256, 0, st>>>(a, partial, batch, t_len, d, hidden, in, chunk)
-#define DW_PARTIAL_RT(RT)                                         \
-  if (a.php != nullptr) DW_PARTIAL(RT, DW_ALIGN);                 \
-  else if (a.coins != nullptr) DW_PARTIAL(RT, DW_SS);             \
-  else DW_PARTIAL(RT, DW_TF);
-  if (bf16) {
-    DW_PARTIAL_RT(__nv_bfloat16)
-  } else {
-    DW_PARTIAL_RT(float)
-  }
-#undef DW_PARTIAL_RT
-#undef DW_PARTIAL
+  using BF = __nv_bfloat16;
+  const auto kernel =
+      bf16 ? (cbf16 ? lstm_dw_partial_kernel<BF, MODE, BF>
+                    : lstm_dw_partial_kernel<BF, MODE, float>)
+           : (cbf16 ? lstm_dw_partial_kernel<float, MODE, BF>
+                    : lstm_dw_partial_kernel<float, MODE, float>);
+  kernel<<<grid, 256, 0, st>>>(a, partial, batch, t_len, d, hidden, in, chunk);
   const int total = (M + 1) * N;
   lstm_dw_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(partial, splits,
                                                           M * N, N, dw, db);
@@ -528,26 +599,27 @@ static inline cudaError_t dw_layer(const DwArgs& a, float* partial, float* dw,
 // STEP_CTX = true: a per-step context ctx (B, T, C), reloaded every step, and
 // dctx (B, T, C) written per step (the lockstep-peer decoder of
 // lstm_align.cu). A template parameter, so that each instance keeps the
-// registers of its own branch.
+// registers of its own branch. The weights are in the compute type CT.
 // ---------------------------------------------------------------------------
 
+template <typename CT>
 struct SsFwdArgs {
-  const float* w[MAX_LAYERS];  // (in_l + H, 4H); layer 0's input is D + C
+  const CT* w[MAX_LAYERS];     // (in_l + H, 4H); layer 0's input is D + C
   const float* b[MAX_LAYERS];  // (4H,)
   void* hs[MAX_LAYERS];        // (B, T, H) residual type
   void* cs[MAX_LAYERS];        // (B, T, H)
   void* gs[MAX_LAYERS];        // (B, T, 4H)
-  const float* proj_w;         // (H, D)
+  const CT* proj_w;            // (H, D)
   const float* proj_b;         // (D,)
 };
 
-template <typename RT, bool STEP_CTX>
+template <typename RT, bool STEP_CTX, typename CT>
 __global__ void __launch_bounds__(256)
     ss_fwd_kernel(const float* __restrict__ h0, const float* __restrict__ c0,
                   const float* __restrict__ y0,
                   const float* __restrict__ teacher,
                   const float* __restrict__ coins,
-                  const float* __restrict__ ctx, const SsFwdArgs a,
+                  const float* __restrict__ ctx, const SsFwdArgs<CT> a,
                   float* __restrict__ ys, int B, int T, int D, int C, int H,
                   int L, int R) {
   extern __shared__ float4 smem4[];
@@ -604,12 +676,13 @@ __global__ void __launch_bounds__(256)
           c_s + l * HR, a.w[l], a.b[l], static_cast<RT*>(a.hs[l]),
           static_cast<RT*>(a.cs[l]), static_cast<RT*>(a.gs[l]), row0, B, T, t,
           H, R, r0, j0, tid, nthr);
-    // y_t = h_top @ proj_w + proj_b from the f32 h: written out and fed back
+    // y_t = h_top @ proj_w + proj_b from the f32 h (rounded to CT as it
+    // enters the product): written out and fed back in f32
     for (int i = tid; i < R * D; i += nthr) {
       const int r = i / D, d = i % D;
       float y = 0.0f;
       for (int k = 0; k < H; ++k)
-        y = fmaf(h_top[k * R + r], __ldg(a.proj_w + k * D + d), y);
+        y = fmaf(cround<CT>(h_top[k * R + r]), ldw1(a.proj_w + k * D + d), y);
       y += __ldg(a.proj_b + d);
       y_s[d * R + r] = y;
       const long long row = row0 + r;
@@ -619,21 +692,22 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+template <typename CT>
 struct SsBwdArgs {
-  const float* w0;              // layer 0's W (D + C + H, 4H): rows :D give dx
-  const float* wt[MAX_LAYERS];  // l == 0: W[D+C:]ᵀ (4H, H); l > 0:
+  const CT* w0;                 // layer 0's W (D + C + H, 4H): rows :D give dx
+  const CT* wt[MAX_LAYERS];     // l == 0: W[D+C:]ᵀ (4H, H); l > 0:
                                 // [W[H:]; W[:H]]ᵀ (4H, 2H), dh part first
-  const float* wtc;             // layer 0's W[D:D+C]ᵀ (4H, C); null if C == 0
+  const CT* wtc;                // layer 0's W[D:D+C]ᵀ (4H, C); null if C == 0
   const void* cs[MAX_LAYERS];   // (B, T, H) residual type
   const void* gs[MAX_LAYERS];   // (B, T, 4H)
   float* dg[MAX_LAYERS];        // (B, T, 4H) dgates out
-  const float* proj_w;          // (H, D)
+  const CT* proj_w;             // (H, D)
 };
 
-template <typename RT, bool STEP_CTX>
+template <typename RT, bool STEP_CTX, typename CT>
 __global__ void __launch_bounds__(256)
     ss_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ c0,
-                  const float* __restrict__ coins, const SsBwdArgs a,
+                  const float* __restrict__ coins, const SsBwdArgs<CT> a,
                   float* __restrict__ dy, float* __restrict__ dteacher,
                   float* __restrict__ dy0, float* __restrict__ dh0,
                   float* __restrict__ dc0, float* __restrict__ dctx, int B,
@@ -677,7 +751,7 @@ __global__ void __launch_bounds__(256)
       for (int j = 0; j < TJ; ++j) {
         float s = 0.0f;
         for (int d = 0; d < D; ++d)
-          s = fmaf(dy_s[d * R + r0 + r], __ldg(a.proj_w + (size_t)(j0 + j) * D + d), s);
+          s = fmaf(cround<CT>(dy_s[d * R + r0 + r]), ldw1(a.proj_w + (size_t)(j0 + j) * D + d), s);
         above[r][j] = s;
       }
     for (int l = L - 1; l >= 0; --l) {
@@ -791,75 +865,57 @@ static int launch_with_smem(Kernel kernel, int grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// rows: batch rows per block, a multiple of 4. The block has (rows / 4) *
-// (hidden / 4) threads and (2 * layers * hidden + 2 * d + ctx_dim) * rows
-// floats of dynamic shared memory. coins (t_len, batch), teacher (t_len,
-// batch, d); ctx (batch, ctx_dim) or, STEP_CTX, (batch, t_len, ctx_dim); null
-// when ctx_dim == 0.
-template <bool STEP_CTX>
-static int ss_fwd_launch(const void* h0, const void* c0, const void* y0,
-                         const void* teacher, const void* coins,
-                         const void* ctx, const void* const* w,
-                         const void* const* b, const void* proj_w,
-                         const void* proj_b, void* const* hs, void* const* cs,
-                         void* const* gs, void* ys, int batch, int t_len,
-                         int d, int ctx_dim, int hidden, int layers, int rows,
-                         int bf16, void* stream) {
-  if (ss_bad_shape(batch, t_len, d, ctx_dim, hidden, layers, rows))
-    return (int)cudaErrorInvalidValue;
-  SsFwdArgs a;
+// The launches with the weights in the compute type CT and the residuals in
+// RT (bf16 != 0: bf16).
+template <bool STEP_CTX, typename CT>
+static int ss_fwd_go(const float* h0, const float* c0, const float* y0,
+                     const float* teacher, const float* coins, const float* ctx,
+                     const void* const* w, const void* const* b,
+                     const void* proj_w, const void* proj_b, void* const* hs,
+                     void* const* cs, void* const* gs, float* ys, int batch,
+                     int t_len, int d, int ctx_dim, int hidden, int layers,
+                     int rows, int bf16, cudaStream_t st) {
+  SsFwdArgs<CT> a;
   for (int l = 0; l < MAX_LAYERS; ++l) {
     const bool on = l < layers;
-    a.w[l] = on ? static_cast<const float*>(w[l]) : nullptr;
+    a.w[l] = on ? static_cast<const CT*>(w[l]) : nullptr;
     a.b[l] = on ? static_cast<const float*>(b[l]) : nullptr;
     a.hs[l] = on ? hs[l] : nullptr;
     a.cs[l] = on ? cs[l] : nullptr;
     a.gs[l] = on ? gs[l] : nullptr;
   }
-  a.proj_w = static_cast<const float*>(proj_w);
+  a.proj_w = static_cast<const CT*>(proj_w);
   a.proj_b = static_cast<const float*>(proj_b);
   const size_t smem =
       ((size_t)2 * layers * hidden + 2 * d + ctx_dim) * rows * sizeof(float);
   const int threads = (rows / TR) * (hidden / TJ);
   const int grid = (batch + rows - 1) / rows;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float *hh = static_cast<const float*>(h0), *cc = static_cast<const float*>(c0),
-              *yy = static_cast<const float*>(y0),
-              *te = static_cast<const float*>(teacher),
-              *co = static_cast<const float*>(coins),
-              *cx = static_cast<const float*>(ctx);
-  float* out = static_cast<float*>(ys);
   if (bf16)
-    return launch_with_smem(ss_fwd_kernel<__nv_bfloat16, STEP_CTX>, grid,
-                            threads, smem, st, hh, cc, yy, te, co, cx, a, out,
-                            batch, t_len, d, ctx_dim, hidden, layers, rows);
-  return launch_with_smem(ss_fwd_kernel<float, STEP_CTX>, grid, threads, smem,
-                          st, hh, cc, yy, te, co, cx, a, out, batch, t_len, d,
-                          ctx_dim, hidden, layers, rows);
+    return launch_with_smem(ss_fwd_kernel<__nv_bfloat16, STEP_CTX, CT>, grid,
+                            threads, smem, st, h0, c0, y0, teacher, coins, ctx,
+                            a, ys, batch, t_len, d, ctx_dim, hidden, layers,
+                            rows);
+  return launch_with_smem(ss_fwd_kernel<float, STEP_CTX, CT>, grid, threads,
+                          smem, st, h0, c0, y0, teacher, coins, ctx, a, ys,
+                          batch, t_len, d, ctx_dim, hidden, layers, rows);
 }
 
-// Same block shape as ss_fwd_launch, with (4 * hidden + 2 * layers * hidden
-// + ctx_dim + 2 * d) * rows floats of dynamic shared memory. w0 is layer 0's
-// W; wt its transposed blocks (see SsBwdArgs); wtc null when ctx_dim == 0.
-// dctx is (batch, ctx_dim) or, STEP_CTX, (batch, t_len, ctx_dim).
-template <bool STEP_CTX>
-static int ss_bwd_launch(const void* dys, const void* c0, const void* coins,
-                         const void* w0, const void* const* wt, const void* wtc,
-                         const void* proj_w, const void* const* cs,
-                         const void* const* gs, void* const* dg, void* dy,
-                         void* dteacher, void* dy0, void* dh0, void* dc0,
-                         void* dctx, int batch, int t_len, int d, int ctx_dim,
-                         int hidden, int layers, int rows, int bf16,
-                         void* stream) {
-  if (ss_bad_shape(batch, t_len, d, ctx_dim, hidden, layers, rows))
-    return (int)cudaErrorInvalidValue;
-  SsBwdArgs a;
-  a.w0 = static_cast<const float*>(w0);
-  a.wtc = static_cast<const float*>(wtc);
-  a.proj_w = static_cast<const float*>(proj_w);
+template <bool STEP_CTX, typename CT>
+static int ss_bwd_go(const float* dys, const float* c0, const float* coins,
+                     const void* w0, const void* const* wt, const void* wtc,
+                     const void* proj_w, const void* const* cs,
+                     const void* const* gs, void* const* dg, float* dy,
+                     float* dteacher, float* dy0, float* dh0, float* dc0,
+                     float* dctx, int batch, int t_len, int d, int ctx_dim,
+                     int hidden, int layers, int rows, int bf16,
+                     cudaStream_t st) {
+  SsBwdArgs<CT> a;
+  a.w0 = static_cast<const CT*>(w0);
+  a.wtc = static_cast<const CT*>(wtc);
+  a.proj_w = static_cast<const CT*>(proj_w);
   for (int l = 0; l < MAX_LAYERS; ++l) {
     const bool on = l < layers;
-    a.wt[l] = on ? static_cast<const float*>(wt[l]) : nullptr;
+    a.wt[l] = on ? static_cast<const CT*>(wt[l]) : nullptr;
     a.cs[l] = on ? cs[l] : nullptr;
     a.gs[l] = on ? gs[l] : nullptr;
     a.dg[l] = on ? static_cast<float*>(dg[l]) : nullptr;
@@ -868,26 +924,74 @@ static int ss_bwd_launch(const void* dys, const void* c0, const void* coins,
                        ctx_dim + 2 * d) * rows * sizeof(float);
   const int threads = (rows / TR) * (hidden / TJ);
   const int grid = (batch + rows - 1) / rows;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float *up = static_cast<const float*>(dys), *cc = static_cast<const float*>(c0),
-              *co = static_cast<const float*>(coins);
-  float *o_dy = static_cast<float*>(dy), *o_dt = static_cast<float*>(dteacher),
-        *o_dy0 = static_cast<float*>(dy0), *o_dh = static_cast<float*>(dh0),
-        *o_dc = static_cast<float*>(dc0), *o_dx = static_cast<float*>(dctx);
   if (bf16)
-    return launch_with_smem(ss_bwd_kernel<__nv_bfloat16, STEP_CTX>, grid,
-                            threads, smem, st, up, cc, co, a, o_dy, o_dt, o_dy0,
-                            o_dh, o_dc, o_dx, batch, t_len, d, ctx_dim, hidden,
-                            layers, rows);
-  return launch_with_smem(ss_bwd_kernel<float, STEP_CTX>, grid, threads, smem,
-                          st, up, cc, co, a, o_dy, o_dt, o_dy0, o_dh, o_dc,
-                          o_dx, batch, t_len, d, ctx_dim, hidden, layers, rows);
+    return launch_with_smem(ss_bwd_kernel<__nv_bfloat16, STEP_CTX, CT>, grid,
+                            threads, smem, st, dys, c0, coins, a, dy, dteacher,
+                            dy0, dh0, dc0, dctx, batch, t_len, d, ctx_dim,
+                            hidden, layers, rows);
+  return launch_with_smem(ss_bwd_kernel<float, STEP_CTX, CT>, grid, threads,
+                          smem, st, dys, c0, coins, a, dy, dteacher, dy0, dh0,
+                          dc0, dctx, batch, t_len, d, ctx_dim, hidden, layers,
+                          rows);
+}
+
+// rows: batch rows per block, a multiple of 4. The block has (rows / 4) *
+// (hidden / 4) threads and (2 * layers * hidden + 2 * d + ctx_dim) * rows
+// floats of dynamic shared memory. coins (t_len, batch), teacher (t_len,
+// batch, d); ctx (batch, ctx_dim) or, STEP_CTX, (batch, t_len, ctx_dim); null
+// when ctx_dim == 0. w and proj_w are bf16 when cbf16 (the bf16 compute
+// type), else f32.
+template <bool STEP_CTX>
+static int ss_fwd_launch(const void* h0, const void* c0, const void* y0,
+                         const void* teacher, const void* coins,
+                         const void* ctx, const void* const* w,
+                         const void* const* b, const void* proj_w,
+                         const void* proj_b, void* const* hs, void* const* cs,
+                         void* const* gs, void* ys, int batch, int t_len,
+                         int d, int ctx_dim, int hidden, int layers, int rows,
+                         int bf16, int cbf16, void* stream) {
+  if (ss_bad_shape(batch, t_len, d, ctx_dim, hidden, layers, rows))
+    return (int)cudaErrorInvalidValue;
+  const auto go = cbf16 ? &ss_fwd_go<STEP_CTX, __nv_bfloat16> : &ss_fwd_go<STEP_CTX, float>;
+  return go(static_cast<const float*>(h0), static_cast<const float*>(c0),
+            static_cast<const float*>(y0), static_cast<const float*>(teacher),
+            static_cast<const float*>(coins), static_cast<const float*>(ctx), w,
+            b, proj_w, proj_b, hs, cs, gs, static_cast<float*>(ys), batch, t_len,
+            d, ctx_dim, hidden, layers, rows, bf16,
+            static_cast<cudaStream_t>(stream));
+}
+
+// Same block shape as ss_fwd_launch, with (4 * hidden + 2 * layers * hidden
+// + ctx_dim + 2 * d) * rows floats of dynamic shared memory. w0 is layer 0's
+// W; wt its transposed blocks (see SsBwdArgs); wtc null when ctx_dim == 0;
+// the weights bf16 when cbf16, else f32. dctx is (batch, ctx_dim) or,
+// STEP_CTX, (batch, t_len, ctx_dim).
+template <bool STEP_CTX>
+static int ss_bwd_launch(const void* dys, const void* c0, const void* coins,
+                         const void* w0, const void* const* wt, const void* wtc,
+                         const void* proj_w, const void* const* cs,
+                         const void* const* gs, void* const* dg, void* dy,
+                         void* dteacher, void* dy0, void* dh0, void* dc0,
+                         void* dctx, int batch, int t_len, int d, int ctx_dim,
+                         int hidden, int layers, int rows, int bf16, int cbf16,
+                         void* stream) {
+  if (ss_bad_shape(batch, t_len, d, ctx_dim, hidden, layers, rows))
+    return (int)cudaErrorInvalidValue;
+  const auto go = cbf16 ? &ss_bwd_go<STEP_CTX, __nv_bfloat16> : &ss_bwd_go<STEP_CTX, float>;
+  return go(static_cast<const float*>(dys), static_cast<const float*>(c0),
+            static_cast<const float*>(coins), w0, wt, wtc, proj_w, cs, gs, dg,
+            static_cast<float*>(dy), static_cast<float*>(dteacher),
+            static_cast<float*>(dy0), static_cast<float*>(dh0),
+            static_cast<float*>(dc0), static_cast<float*>(dctx), batch, t_len, d,
+            ctx_dim, hidden, layers, rows, bf16, static_cast<cudaStream_t>(stream));
 }
 
 // dW/db of every decoder layer (the reduction above; layer 0's input rebuilt
-// from coins, teacher, ys, y0 and a static ctx, or, with php != null, the
-// per-step context from php and pwt). `partial` holds splits x
+// by the MODE loader from coins, teacher, ys, y0 and a static ctx (DW_SS) or
+// the per-step context from php and pwt (DW_ALIGN); the layers above read
+// their input from the residuals, the DW_TF loader). `partial` holds splits x
 // (max_l(in_l + H) + 1) x 4H floats, reused layer after layer.
+template <int MODE>
 static inline int ss_dw_layers(const void* h0, const void* y0, const void* teacher,
                         const void* coins, const void* ctx, const void* php,
                         const void* pwt, int n_peers, const void* ys,
@@ -895,7 +999,8 @@ static inline int ss_dw_layers(const void* h0, const void* y0, const void* teach
                         const void* const* gs, const void* const* dg,
                         void* partial, void* const* dw, void* const* db,
                         int batch, int t_len, int d, int ctx_dim, int hidden,
-                        int layers, int splits, int bf16, void* stream) {
+                        int layers, int splits, int bf16, int cbf16,
+                        void* stream) {
   if (layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
       batch < 1 || t_len < 1 || d < 1 || ctx_dim < 0 || splits < 1 ||
       (long long)batch * t_len >= (1LL << 31))
@@ -920,10 +1025,11 @@ static inline int ss_dw_layers(const void* h0, const void* y0, const void* teach
       a.pwt = static_cast<const float*>(pwt);
       a.K = n_peers;
     }
-    const cudaError_t e = dw_layer(
+    const auto layer = l == 0 ? dw_layer<MODE> : dw_layer<DW_TF>;
+    const cudaError_t e = layer(
         a, static_cast<float*>(partial), static_cast<float*>(dw[l]),
         static_cast<float*>(db[l]), batch, t_len, d, hidden,
-        l == 0 ? d + ctx_dim : hidden, splits, bf16 != 0, st);
+        l == 0 ? d + ctx_dim : hidden, splits, bf16 != 0, cbf16 != 0, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;

@@ -1,5 +1,5 @@
 // Scheduled-sampling LSTM decoder for training, forward and backward, for
-// Hopper (sm_90a), exact f32 compute, residuals in f32 or bf16.
+// Hopper (sm_90a), f32 or bf16 compute, residuals in f32 or bf16.
 //
 // Replaces the TPU Pallas kernels of
 //   longterm360fov_tpu/ops/lstm_ss.py::ss_decode
@@ -28,6 +28,11 @@
 //     o·tanh(c) of the layer below from the residuals;
 //   * ss_dproj_partial_kernel + lstm_dw_sum_kernel: dproj_w = Σ h_topᵀ·dy and
 //     dproj_b = Σ dy over the B·T rows, h_top read from the residuals.
+// The bf16 compute type rounds both operands of every product to bf16 and
+// sums in f32, as lstm_train.cu's does, here also in the projection
+// y = h_top·proj_w (ys and the fed-back y stay f32), dy·proj_wᵀ, the
+// layer-0 dW loader's rebuilt [x_t, ctx] and dproj_w = Σ h_topᵀ·dy; dproj_b
+// sums the unrounded dy.
 // The TPU kernel summed dW, db, dproj and dctx in VMEM across its ordered
 // grid. Blocks here run in parallel, so every sum across rows is split into
 // slices whose partial sums a second pass adds in a fixed order: no float
@@ -61,8 +66,9 @@
 // H + 32 threads: thread j < H of a group holds dproj_w[j][:D] += h_top[q][j]
 // · dy[q][:D], lane j - H < D of its last warp dproj_b[j - H] += dy[q][j - H].
 // The groups are added in order through shared memory into
-// partial[s] = (dproj_w (H, D) row-major, dproj_b (D,)).
-template <typename RT>
+// partial[s] = (dproj_w (H, D) row-major, dproj_b (D,)). CT rounds h_top and
+// dy in dproj_w's product; dproj_b sums dy as it is.
+template <typename RT, typename CT>
 __global__ void __launch_bounds__(1024)
     ss_dproj_partial_kernel(const RT* __restrict__ hs_top,
                             const float* __restrict__ dy,
@@ -77,10 +83,10 @@ __global__ void __launch_bounds__(1024)
   if (j < H) {
 #pragma unroll 4
     for (int q = q_begin + g; q < q_end; q += groups) {
-      const float h = Res<RT>::ld(hs_top + (size_t)q * H + j);
+      const float h = cround<CT>(Res<RT>::ld(hs_top + (size_t)q * H + j));
 #pragma unroll
       for (int d = 0; d < 4; ++d)
-        if (d < D) acc[d] = fmaf(h, dy[(size_t)q * D + d], acc[d]);
+        if (d < D) acc[d] = fmaf(h, cround<CT>(dy[(size_t)q * D + d]), acc[d]);
     }
 #pragma unroll
     for (int d = 0; d < 4; ++d)
@@ -107,16 +113,17 @@ extern "C" {
 // ss_fwd, ss_bwd and ss_dw: the static-context instances of lstm_common.cuh's
 // launches (see ss_fwd_launch, ss_bwd_launch and ss_dw_layers for the
 // arguments, block shapes and shared memory). ctx and dctx are (batch,
-// ctx_dim), null when ctx_dim == 0.
+// ctx_dim), null when ctx_dim == 0. bf16: residuals in bf16; cbf16: the bf16
+// compute type, whose weights arrive in bf16.
 int ss_fwd(const void* h0, const void* c0, const void* y0, const void* teacher,
            const void* coins, const void* ctx, const void* const* w,
            const void* const* b, const void* proj_w, const void* proj_b,
            void* const* hs, void* const* cs, void* const* gs, void* ys,
            int batch, int t_len, int d, int ctx_dim, int hidden, int layers,
-           int rows, int bf16, void* stream) {
+           int rows, int bf16, int cbf16, void* stream) {
   return ss_fwd_launch<false>(h0, c0, y0, teacher, coins, ctx, w, b, proj_w,
                               proj_b, hs, cs, gs, ys, batch, t_len, d, ctx_dim,
-                              hidden, layers, rows, bf16, stream);
+                              hidden, layers, rows, bf16, cbf16, stream);
 }
 
 int ss_bwd(const void* dys, const void* c0, const void* coins, const void* w0,
@@ -124,10 +131,11 @@ int ss_bwd(const void* dys, const void* c0, const void* coins, const void* w0,
            const void* const* cs, const void* const* gs, void* const* dg,
            void* dy, void* dteacher, void* dy0, void* dh0, void* dc0,
            void* dctx, int batch, int t_len, int d, int ctx_dim, int hidden,
-           int layers, int rows, int bf16, void* stream) {
+           int layers, int rows, int bf16, int cbf16, void* stream) {
   return ss_bwd_launch<false>(dys, c0, coins, w0, wt, wtc, proj_w, cs, gs, dg,
                               dy, dteacher, dy0, dh0, dc0, dctx, batch, t_len,
-                              d, ctx_dim, hidden, layers, rows, bf16, stream);
+                              d, ctx_dim, hidden, layers, rows, bf16, cbf16,
+                              stream);
 }
 
 int ss_dw(const void* h0, const void* y0, const void* teacher,
@@ -135,18 +143,19 @@ int ss_dw(const void* h0, const void* y0, const void* teacher,
           const void* const* hs, const void* const* cs, const void* const* gs,
           const void* const* dg, void* partial, void* const* dw,
           void* const* db, int batch, int t_len, int d, int ctx_dim,
-          int hidden, int layers, int splits, int bf16, void* stream) {
-  return ss_dw_layers(h0, y0, teacher, coins, ctx, nullptr, nullptr, 0, ys,
+          int hidden, int layers, int splits, int bf16, int cbf16,
+          void* stream) {
+  return ss_dw_layers<DW_SS>(h0, y0, teacher, coins, ctx, nullptr, nullptr, 0, ys,
                       hs, cs, gs, dg, partial, dw, db, batch, t_len, d,
-                      ctx_dim, hidden, layers, splits, bf16, stream);
+                      ctx_dim, hidden, layers, splits, bf16, cbf16, stream);
 }
 
 // dproj_w (hidden, d) and dproj_b (d,) over the batch·t_len rows of hs_top
-// (residual type) and dy (f32), d <= 4. `partial` holds splits x
-// (hidden + 1) x d floats.
+// (residual type) and dy (f32), d <= 4, in the bf16 compute type when
+// cbf16. `partial` holds splits x (hidden + 1) x d floats.
 int ss_dproj(const void* hs_top, const void* dy, void* partial, void* dproj_w,
              void* dproj_b, int batch, int t_len, int d, int hidden,
-             int splits, int bf16, void* stream) {
+             int splits, int bf16, int cbf16, void* stream) {
   if (batch < 1 || t_len < 1 || d < 1 || d > 4 || hidden < 1 ||
       hidden + 32 > 1024 || splits < 1 ||
       (long long)batch * t_len >= (1LL << 31))
@@ -159,14 +168,19 @@ int ss_dproj(const void* hs_top, const void* dy, void* partial, void* dproj_w,
   const int chunk = (Q + splits - 1) / splits;
   float* part = static_cast<float*>(partial);
   const float* g = static_cast<const float*>(dy);
-  if (bf16)
-    ss_dproj_partial_kernel<__nv_bfloat16><<<splits, threads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(hs_top), g, part, Q, d, hidden,
-        chunk, groups);
+#define DPROJ(RT, CT)                                             \
+  ss_dproj_partial_kernel<RT, CT><<<splits, threads, smem, st>>>( \
+      static_cast<const RT*>(hs_top), g, part, Q, d, hidden, chunk, groups)
+  using BF = __nv_bfloat16;
+  if (bf16 && cbf16)
+    DPROJ(BF, BF);
+  else if (bf16)
+    DPROJ(BF, float);
+  else if (cbf16)
+    DPROJ(float, BF);
   else
-    ss_dproj_partial_kernel<float><<<splits, threads, smem, st>>>(
-        static_cast<const float*>(hs_top), g, part, Q, d, hidden, chunk,
-        groups);
+    DPROJ(float, float);
+#undef DPROJ
   const int total = (hidden + 1) * d;
   lstm_dw_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(
       part, splits, hidden * d, d, static_cast<float*>(dproj_w),

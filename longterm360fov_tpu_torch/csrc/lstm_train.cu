@@ -1,5 +1,5 @@
 // Teacher-forced stacked LSTM for training, forward and backward, for Hopper
-// (sm_90a), exact f32 compute, residuals in f32 or bf16.
+// (sm_90a), f32 or bf16 compute, residuals in f32 or bf16.
 //
 // Replaces the TPU Pallas kernels of
 //   longterm360fov_tpu/ops/lstm_train.py::lstm_seq_states
@@ -24,6 +24,14 @@
 //     sums of one dW tile over one slice, and a second pass adds the S
 //     partials in a fixed order. No float atomics: two runs give the same
 //     bits.
+// The bf16 compute type (the TPU kernels' compute_dtype=bfloat16 tier)
+// rounds both operands of each product to bf16 and sums in f32: the gate
+// products [x, h]·W, dgates·Wᵀ, the dW sums zᵀ·dgates; db sums the unrounded
+// dgates, and carries, gates, residuals and dgates in device memory stay f32
+// or the residual type (lstm_common.cuh, cround). W is read as bf16 that the
+// wrapper rounded once per call, half the bytes from L2. The products still
+// run on the FMA units (the operands widened to f32), so the tier is no
+// faster than f32: it computes the TPU tier's function.
 // Every tensor is read and written batch-major, (B, T, ·), as the caller
 // holds it: a row's H values are contiguous, so a warp's per-step stores of
 // one row are one coalesced 512-byte (f32) or 256-byte (bf16) segment. No
@@ -73,18 +81,19 @@
 // forward
 // ---------------------------------------------------------------------------
 
+template <typename CT>
 struct FwdArgs {
-  const float* w[MAX_LAYERS];  // (in_l + H, 4H), gate order i, f, g, o
+  const CT* w[MAX_LAYERS];     // (in_l + H, 4H), gate order i, f, g, o
   const float* b[MAX_LAYERS];  // (4H,)
   void* hs[MAX_LAYERS];        // (B, T, H) residual type
   void* cs[MAX_LAYERS];        // (B, T, H)
   void* gs[MAX_LAYERS];        // (B, T, 4H)
 };
 
-template <typename RT>
+template <typename RT, typename CT>
 __global__ void __launch_bounds__(256)
     lstm_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
-                    const float* __restrict__ c0, const FwdArgs a, int B,
+                    const float* __restrict__ c0, const FwdArgs<CT> a, int B,
                     int T, int D, int H, int L, int R) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -119,21 +128,22 @@ __global__ void __launch_bounds__(256)
 // backward recurrence
 // ---------------------------------------------------------------------------
 
+template <typename CT>
 struct BwdArgs {
-  const float* w[MAX_LAYERS];   // (in_l + H, 4H): layer 0's rows :D give dxs
-  const float* wt[MAX_LAYERS];  // l == 0: W[D:]ᵀ (4H, H); l > 0:
+  const CT* w[MAX_LAYERS];      // (in_l + H, 4H): layer 0's rows :D give dxs
+  const CT* wt[MAX_LAYERS];     // l == 0: W[D:]ᵀ (4H, H); l > 0:
                                 // [W[H:]; W[:H]]ᵀ (4H, 2H), dh part first
   const void* cs[MAX_LAYERS];   // (B, T, H) residual type
   const void* gs[MAX_LAYERS];   // (B, T, 4H)
   float* dg[MAX_LAYERS];        // (B, T, 4H) dgates out
 };
 
-template <typename RT>
+template <typename RT, typename CT>
 __global__ void __launch_bounds__(256)
     lstm_bwd_kernel(const float* __restrict__ dhs_top,
                     const float* __restrict__ dhT,
                     const float* __restrict__ dcT,
-                    const float* __restrict__ c0, const BwdArgs a,
+                    const float* __restrict__ c0, const BwdArgs<CT> a,
                     float* __restrict__ dxs, float* __restrict__ dh0,
                     float* __restrict__ dc0, int B, int T, int D, int H,
                     int L, int R) {
@@ -238,21 +248,17 @@ static bool bad_shape(int batch, int t_len, int d, int hidden, int layers,
          (rows / TR) * (hidden / TJ) > 256;
 }
 
-extern "C" {
-
-// rows: batch rows per block, a multiple of 4. The block has
-// (rows / 4) * (hidden / 4) threads and (2 * layers * hidden + d) * rows
-// floats of dynamic shared memory.
-int lstm_fwd(const void* xs, const void* h0, const void* c0,
-             const void* const* w, const void* const* b, void* const* hs,
-             void* const* cs, void* const* gs, int batch, int t_len, int d,
-             int hidden, int layers, int rows, int bf16, void* stream) {
-  if (bad_shape(batch, t_len, d, hidden, layers, rows))
-    return (int)cudaErrorInvalidValue;
-  FwdArgs a;
+// The launches with the weights in the compute type CT (see lstm_fwd and
+// lstm_bwd below).
+template <typename CT>
+static int fwd_go(const float* xs, const float* h0, const float* c0,
+                  const void* const* w, const void* const* b, void* const* hs,
+                  void* const* cs, void* const* gs, int batch, int t_len, int d,
+                  int hidden, int layers, int rows, int bf16, cudaStream_t st) {
+  FwdArgs<CT> a;
   for (int l = 0; l < MAX_LAYERS; ++l) {
     const bool on = l < layers;
-    a.w[l] = on ? static_cast<const float*>(w[l]) : nullptr;
+    a.w[l] = on ? static_cast<const CT*>(w[l]) : nullptr;
     a.b[l] = on ? static_cast<const float*>(b[l]) : nullptr;
     a.hs[l] = on ? hs[l] : nullptr;
     a.cs[l] = on ? cs[l] : nullptr;
@@ -261,40 +267,26 @@ int lstm_fwd(const void* xs, const void* h0, const void* c0,
   const size_t smem = ((size_t)2 * layers * hidden + d) * rows * sizeof(float);
   const int threads = (rows / TR) * (hidden / TJ);
   const int grid = (batch + rows - 1) / rows;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float *x = static_cast<const float*>(xs), *hh = static_cast<const float*>(h0),
-              *cc = static_cast<const float*>(c0);
-#define LAUNCH_FWD(RTV)                                                        \
-  {                                                                            \
-    cudaError_t e = cudaFuncSetAttribute(                                      \
-        lstm_fwd_kernel<RTV>, cudaFuncAttributeMaxDynamicSharedMemorySize,     \
-        (int)smem);                                                            \
-    if (e != cudaSuccess) return (int)e;                                       \
-    lstm_fwd_kernel<RTV><<<grid, threads, smem, st>>>(                         \
-        x, hh, cc, a, batch, t_len, d, hidden, layers, rows);                  \
-  }
   if (bf16)
-    LAUNCH_FWD(__nv_bfloat16)
-  else
-    LAUNCH_FWD(float)
-#undef LAUNCH_FWD
-  return (int)cudaGetLastError();
+    return launch_with_smem(lstm_fwd_kernel<__nv_bfloat16, CT>, grid, threads,
+                            smem, st, xs, h0, c0, a, batch, t_len, d, hidden,
+                            layers, rows);
+  return launch_with_smem(lstm_fwd_kernel<float, CT>, grid, threads, smem, st,
+                          xs, h0, c0, a, batch, t_len, d, hidden, layers, rows);
 }
 
-// Same block shape as lstm_fwd, with (4 * hidden + 2 * layers * hidden) * rows
-// floats of dynamic shared memory.
-int lstm_bwd(const void* dhs_top, const void* dhT, const void* dcT,
-             const void* c0, const void* const* w, const void* const* wt,
-             const void* const* cs, const void* const* gs, void* const* dg,
-             void* dxs, void* dh0, void* dc0, int batch, int t_len, int d,
-             int hidden, int layers, int rows, int bf16, void* stream) {
-  if (bad_shape(batch, t_len, d, hidden, layers, rows))
-    return (int)cudaErrorInvalidValue;
-  BwdArgs a;
+template <typename CT>
+static int bwd_go(const float* dhs_top, const float* dhT, const float* dcT,
+                  const float* c0, const void* const* w, const void* const* wt,
+                  const void* const* cs, const void* const* gs, void* const* dg,
+                  float* dxs, float* dh0, float* dc0, int batch, int t_len,
+                  int d, int hidden, int layers, int rows, int bf16,
+                  cudaStream_t st) {
+  BwdArgs<CT> a;
   for (int l = 0; l < MAX_LAYERS; ++l) {
     const bool on = l < layers;
-    a.w[l] = on ? static_cast<const float*>(w[l]) : nullptr;
-    a.wt[l] = on ? static_cast<const float*>(wt[l]) : nullptr;
+    a.w[l] = on ? static_cast<const CT*>(w[l]) : nullptr;
+    a.wt[l] = on ? static_cast<const CT*>(wt[l]) : nullptr;
     a.cs[l] = on ? cs[l] : nullptr;
     a.gs[l] = on ? gs[l] : nullptr;
     a.dg[l] = on ? static_cast<float*>(dg[l]) : nullptr;
@@ -303,28 +295,50 @@ int lstm_bwd(const void* dhs_top, const void* dhT, const void* dcT,
       ((size_t)4 * hidden + (size_t)2 * layers * hidden) * rows * sizeof(float);
   const int threads = (rows / TR) * (hidden / TJ);
   const int grid = (batch + rows - 1) / rows;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float *up = static_cast<const float*>(dhs_top),
-              *dh = static_cast<const float*>(dhT),
-              *dc = static_cast<const float*>(dcT),
-              *cc = static_cast<const float*>(c0);
-  float *dx = static_cast<float*>(dxs), *oh = static_cast<float*>(dh0),
-        *oc = static_cast<float*>(dc0);
-#define LAUNCH_BWD(RTV)                                                        \
-  {                                                                            \
-    cudaError_t e = cudaFuncSetAttribute(                                      \
-        lstm_bwd_kernel<RTV>, cudaFuncAttributeMaxDynamicSharedMemorySize,     \
-        (int)smem);                                                            \
-    if (e != cudaSuccess) return (int)e;                                       \
-    lstm_bwd_kernel<RTV><<<grid, threads, smem, st>>>(                         \
-        up, dh, dc, cc, a, dx, oh, oc, batch, t_len, d, hidden, layers, rows); \
-  }
   if (bf16)
-    LAUNCH_BWD(__nv_bfloat16)
-  else
-    LAUNCH_BWD(float)
-#undef LAUNCH_BWD
-  return (int)cudaGetLastError();
+    return launch_with_smem(lstm_bwd_kernel<__nv_bfloat16, CT>, grid, threads,
+                            smem, st, dhs_top, dhT, dcT, c0, a, dxs, dh0, dc0,
+                            batch, t_len, d, hidden, layers, rows);
+  return launch_with_smem(lstm_bwd_kernel<float, CT>, grid, threads, smem, st,
+                          dhs_top, dhT, dcT, c0, a, dxs, dh0, dc0, batch, t_len,
+                          d, hidden, layers, rows);
+}
+
+extern "C" {
+
+// rows: batch rows per block, a multiple of 4. The block has
+// (rows / 4) * (hidden / 4) threads and (2 * layers * hidden + d) * rows
+// floats of dynamic shared memory. bf16: residuals in bf16; cbf16: the bf16
+// compute type, w in bf16 (else f32).
+int lstm_fwd(const void* xs, const void* h0, const void* c0,
+             const void* const* w, const void* const* b, void* const* hs,
+             void* const* cs, void* const* gs, int batch, int t_len, int d,
+             int hidden, int layers, int rows, int bf16, int cbf16,
+             void* stream) {
+  if (bad_shape(batch, t_len, d, hidden, layers, rows))
+    return (int)cudaErrorInvalidValue;
+  const auto go = cbf16 ? &fwd_go<__nv_bfloat16> : &fwd_go<float>;
+  return go(static_cast<const float*>(xs), static_cast<const float*>(h0),
+            static_cast<const float*>(c0), w, b, hs, cs, gs, batch, t_len, d,
+            hidden, layers, rows, bf16, static_cast<cudaStream_t>(stream));
+}
+
+// Same block shape as lstm_fwd, with (4 * hidden + 2 * layers * hidden) * rows
+// floats of dynamic shared memory; w and wt in bf16 when cbf16.
+int lstm_bwd(const void* dhs_top, const void* dhT, const void* dcT,
+             const void* c0, const void* const* w, const void* const* wt,
+             const void* const* cs, const void* const* gs, void* const* dg,
+             void* dxs, void* dh0, void* dc0, int batch, int t_len, int d,
+             int hidden, int layers, int rows, int bf16, int cbf16,
+             void* stream) {
+  if (bad_shape(batch, t_len, d, hidden, layers, rows))
+    return (int)cudaErrorInvalidValue;
+  const auto go = cbf16 ? &bwd_go<__nv_bfloat16> : &bwd_go<float>;
+  return go(static_cast<const float*>(dhs_top), static_cast<const float*>(dhT),
+            static_cast<const float*>(dcT), static_cast<const float*>(c0), w, wt,
+            cs, gs, dg, static_cast<float*>(dxs), static_cast<float*>(dh0),
+            static_cast<float*>(dc0), batch, t_len, d, hidden, layers, rows,
+            bf16, static_cast<cudaStream_t>(stream));
 }
 
 // Per layer: the partial sums over `splits` slices of the B·T rows, then
@@ -334,7 +348,7 @@ int lstm_dw(const void* xs, const void* h0, const void* const* hs,
             const void* const* cs, const void* const* gs,
             const void* const* dg, void* partial, void* const* dw,
             void* const* db, int batch, int t_len, int d, int hidden,
-            int layers, int splits, int bf16, void* stream) {
+            int layers, int splits, int bf16, int cbf16, void* stream) {
   if (layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
       batch < 1 || t_len < 1 || d < 1 || splits < 1 ||
       (long long)batch * t_len >= (1LL << 31))
@@ -348,10 +362,10 @@ int lstm_dw(const void* xs, const void* h0, const void* const* hs,
     a.cs_in = l > 0 ? cs[l - 1] : nullptr;
     a.gs_in = l > 0 ? gs[l - 1] : nullptr;
     a.dg = static_cast<const float*>(dg[l]);
-    const cudaError_t e = dw_layer(
+    const cudaError_t e = dw_layer<DW_TF>(
         a, static_cast<float*>(partial), static_cast<float*>(dw[l]),
         static_cast<float*>(db[l]), batch, t_len, d, hidden,
-        l == 0 ? d : hidden, splits, bf16 != 0, st);
+        l == 0 ? d : hidden, splits, bf16 != 0, cbf16 != 0, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;

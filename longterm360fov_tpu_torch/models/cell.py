@@ -14,7 +14,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-__all__ = ["LSTMParams", "LSTMState", "init_lstm", "lstm_cell", "get_cell_fn"]
+__all__ = ["LSTMParams", "LSTMState", "init_lstm", "lstm_cell", "get_cell_fn", "round_to", "mm"]
 
 
 class LSTMParams(NamedTuple):
@@ -58,6 +58,19 @@ def lstm_cell(
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+def round_to(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to ``compute_dtype`` and held in f32: the bf16 tier's
+    rounding of a product operand; f32 leaves it as it is."""
+    return x if compute_dtype == torch.float32 else x.to(compute_dtype).float()
+
+
+def mm(x: torch.Tensor, w: torch.Tensor, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x @ w``; in the bf16 tier both operands rounded to bf16 and the
+    product in f32 (each term exact, the sum in f32), as the JAX tiers' bf16
+    dot with ``preferred_element_type=float32``."""
+    return round_to(x, compute_dtype) @ round_to(w, compute_dtype)
 
 
 def get_cell_fn(name: str = "xla"):

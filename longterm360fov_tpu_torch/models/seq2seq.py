@@ -239,11 +239,13 @@ def apply_fused_tf(
     states read back from its residuals. A static ``context`` (B, ctx_dim)
     joins every step's decoder input.
 
+    ``compute_dtype=torch.bfloat16`` runs both kernels in their bf16-compute
+    tier (``train --train-compute bfloat16``).
+
     Raising: a per-step (B, H_out, ctx_dim) context, which is not a tier of
     this function (the cross_user ``peer_align`` tier builds its per-step
     context from the peers inside ``ops.lstm_align.aligned_ss_decode``:
-    ``cross_user.apply_fused_tf``), and bf16 ``compute_dtype`` (ROADMAP.md
-    Queue 2, the lstm_seq_states bf16-compute tier)."""
+    ``cross_user.apply_fused_tf``)."""
     if context is not None and context.dim() != 2:
         raise NotImplementedError(
             "seq2seq.apply_fused_tf takes a static (B, C) context; a per-step "

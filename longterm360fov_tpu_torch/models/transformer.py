@@ -45,6 +45,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .cell import mm as _mm, round_to as _round
 from .seq2seq import Seq2SeqConfig
 
 __all__ = ["init", "apply", "apply_fused_tf", "apply_fused_ss", "draw_noise", "teacher_tokens", "serve_fused",
@@ -116,19 +117,6 @@ def _split_heads(x):
 def _merge_heads(x):
     b, n, t, d = x.shape
     return x.transpose(1, 2).reshape(b, t, n * d)
-
-
-def _round(x, compute_dtype):
-    """``x`` rounded to ``compute_dtype`` and held in f32: the bf16 tier's
-    rounding of a stored value; f32 leaves it as it is."""
-    return x if compute_dtype == torch.float32 else x.to(compute_dtype).float()
-
-
-def _mm(x, w, compute_dtype=torch.float32):
-    """``x @ w``; in the bf16 tier both operands rounded to bf16 and the
-    product in f32 (each term exact, the sum in f32), as the JAX tier's
-    bf16 dot with ``preferred_element_type=float32``."""
-    return _round(x, compute_dtype) @ _round(w, compute_dtype)
 
 
 def _attention(p, q_in, kv_in, *, mask=None, compute_dtype=torch.float32):
@@ -384,18 +372,13 @@ def _decode(params, cfg, enc_mem, past_n, future_n, rng, teacher_prob, other_fut
     return _ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0)
 
 
-def _train_encoder(params, cfg, past_n, compute_dtype):
+def _train_encoder(params, cfg, past_n):
     """The training encoder of the fused hooks: ``fused_encode_train`` (its
     kernels on the card, autograd through ``_encode`` on the CPU) where
     ``encode_kernel_fits``, else ``_encode``, as the serving path routes."""
     from ..ops.transformer_encode import encode_kernel_fits
     from ..ops.transformer_encode_train import fused_encode_train
 
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"transformer training: only the exact f32 tier is ported, got compute_dtype={compute_dtype} "
-            f"(ROADMAP.md, slice I-b: --train-compute bfloat16)"
-        )
     if encode_kernel_fits(past_n.shape[1]):
         return fused_encode_train(params, cfg, past_n.float().contiguous())
     return _encode(params, cfg, past_n)
@@ -414,9 +397,13 @@ def apply_fused_tf(
 ) -> torch.Tensor:
     """Teacher-forced training forward: :func:`apply`'s parallel pass with
     the encoder on ``ops.transformer_encode_train`` (the hook
-    ``train.make_grad_fn`` runs under ``train_impl`` "auto"/"fused")."""
-    del context
-    return _decode(params, cfg, _train_encoder(params, cfg, past_n, compute_dtype), past_n, future_n, None, 1.0,
+    ``train.make_grad_fn`` runs under ``train_impl`` "auto"/"fused").
+
+    ``compute_dtype`` (``train --train-compute``) is ignored: the JAX
+    transformer has no fused training hook, so its step runs in f32 under
+    the flag, and so does this one."""
+    del context, compute_dtype
+    return _decode(params, cfg, _train_encoder(params, cfg, past_n), past_n, future_n, None, 1.0,
                    other_future_n, other_mask)
 
 
@@ -435,9 +422,10 @@ def apply_fused_ss(
 ) -> torch.Tensor:
     """Noisy-teacher-forcing training forward (the family's scheduled
     sampling): :func:`apply`'s parallel pass with ``rng`` at
-    ``teacher_prob``, the encoder on ``ops.transformer_encode_train``."""
-    del context
-    return _decode(params, cfg, _train_encoder(params, cfg, past_n, compute_dtype), past_n, future_n, rng,
+    ``teacher_prob``, the encoder on ``ops.transformer_encode_train``;
+    ``compute_dtype`` is ignored, as in :func:`apply_fused_tf`."""
+    del context, compute_dtype
+    return _decode(params, cfg, _train_encoder(params, cfg, past_n), past_n, future_n, rng,
                    teacher_prob, other_future_n, other_mask)
 
 

@@ -293,7 +293,7 @@ def fused_serve(
         if compute_dtype != torch.float32 or _probe:
             raise NotImplementedError(
                 "fused_serve: the lockstep tier is ported in exact f32 only, with no "
-                "_probe modes (ROADMAP.md slice I-b, the bf16 tier)"
+                "_probe modes (ROADMAP.md slice I-c, the bf16 tier)"
             )
         return fused_serve_peers(enc_params, dec_params, proj_w, proj_b, past_n, t_out,
                                  peer_params, peer_xs, peer_w)
@@ -302,7 +302,7 @@ def fused_serve(
     if compute_dtype != torch.float32:
         raise NotImplementedError(
             f"fused_serve: only the exact f32 tier is ported, got "
-            f"compute_dtype={compute_dtype} (ROADMAP.md, slice I-b)"
+            f"compute_dtype={compute_dtype} (ROADMAP.md, slice I-c)"
         )
     if _probe:
         raise NotImplementedError(
@@ -454,7 +454,7 @@ def fused_encode(
     if compute_dtype != torch.float32:
         raise NotImplementedError(
             f"fused_encode: only the exact f32 tier is ported, got "
-            f"compute_dtype={compute_dtype} (ROADMAP.md slice I-b, the bf16 tier)"
+            f"compute_dtype={compute_dtype} (ROADMAP.md slice I-c, the bf16 tier)"
         )
     if xs.dim() != 3 or min(xs.shape) < 1 or not params:
         raise ValueError(f"xs must be a non-empty (B, T, D) with >= 1 layer, got {tuple(xs.shape)}")
@@ -543,7 +543,7 @@ def fused_lstm_cell(params: LSTMParams, x: torch.Tensor, state):
     """Drop-in for ``models.cell.lstm_cell`` (the JAX signature: ``(params,
     x, (h, c)) → (h, c)``): one LSTM step, in one kernel launch on CUDA
     tensors, ``lstm_cell`` itself on CPU tensors. f32 only (the bf16 tiers
-    are slice I-b, ``--bf16``). No backward, as the TPU kernel has none: an
+    are slice I-c, ``--bf16``). No backward, as the TPU kernel has none: an
     input that requires grad raises on both devices."""
     h, c = state
     if x.dim() != 2 or h.dim() != 2 or min(*x.shape, *h.shape) < 1:
@@ -554,7 +554,7 @@ def fused_lstm_cell(params: LSTMParams, x: torch.Tensor, state):
     for t in (x, h, c, params.w, params.b):
         if t.dtype != torch.float32:
             raise TypeError(f"fused_lstm_cell takes float32 tensors, got {t.dtype}: the bf16 tiers are "
-                            f"ROADMAP.md slice I-b (--bf16)")
+                            f"ROADMAP.md slice I-c (--bf16)")
     _check_tensors([(x, (batch, d_in)), (h, (batch, hidden)), (c, (batch, hidden)),
                     (params.w, (d_in + hidden, 4 * hidden)), (params.b, (4 * hidden,))], x.device)
     # the kernel reads c, W and b as 16-byte vectors, x and h by element

@@ -9,7 +9,11 @@ advance one step on their known windows ``pxs_tm[t]`` (B, K·D), and
 ``ctx_t = Σ_k pwt[:, k] · h_k,t`` (k = 0 .. K - 1 in order) joins layer 0's
 input ``[x_t, ctx_t]``. The signature is the JAX one; coins get no gradient,
 every other input does, the peer windows (dpxs) and the mask weights (dpwt)
-included.
+included. ``compute_dtype`` bf16 is the JAX ``compute_dtype=bfloat16`` tier
+(``ops.lstm_train``): the operands of every product rounded to bf16, the
+peer gates ``[pxs_t, h_{t-1}]·Wp`` alike in the forward and in the
+backward's recomputation; ``ctx_t`` is formed from the unrounded peer h and
+rounded only where it enters the decoder's layer-0 product.
 
 Inside, the peer rows are laid out (B·K, T, ·), peer row p = b·K + k. The
 kernels of ``csrc/lstm_align.cu`` (whose header says what bounds them and
@@ -32,8 +36,9 @@ Each wrapper runs its plain version (``_peer_fwd_reference``,
 with a per-step context, ``_peer_bwd_reference``, ``_dw_reference``,
 ``_peer_dw_reference``) on CPU tensors, and launches its kernel on CUDA
 tensors or raises; it never falls back. Each counts its kernel launches in
-``.launches``. :func:`aligned_ss_decode_reference` is the whole decoder as a
-step loop of ``cell.lstm_cell``, whose gradient torch autograd gives.
+``.launches`` (f32 compute) and ``.launches_bf16`` (bf16 compute).
+:func:`aligned_ss_decode_reference` is the whole decoder as a step loop of
+``cell.lstm_cell``, whose gradient torch autograd gives.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from ..models.cell import LSTMParams, lstm_cell
+from ..models.cell import LSTMParams, lstm_cell, mm
 from . import _build, lstm_ss
 from .fused_lstm import peer_rows
 from .lstm_train import (
@@ -55,7 +60,10 @@ from .lstm_train import (
     _n_sm,
     _no_tf32,
     _ptrs,
+    check_compute,
+    count_launch,
     dw_splits,
+    in_compute,
     kernel_rows as _lstm_kernel_rows,
 )
 
@@ -124,15 +132,16 @@ def aligned_ss_decode_reference(
     return torch.stack(ys, dim=1)
 
 
-def _gates(p: LSTMParams, x, h):
-    i, f, g, o = (torch.cat([x, h], dim=-1) @ p.w + p.b).chunk(4, dim=-1)
+def _gates(p: LSTMParams, x, h, compute_dtype=torch.float32):
+    i, f, g, o = (mm(torch.cat([x, h], dim=-1), p.w, compute_dtype) + p.b).chunk(4, dim=-1)
     return i.sigmoid(), f.sigmoid(), g.tanh(), o.sigmoid()
 
 
-def _peer_fwd_reference(peer_params: LSTMParams, pxs, pwt, residual_dtype):
+def _peer_fwd_reference(peer_params: LSTMParams, pxs, pwt, residual_dtype,
+                        compute_dtype=torch.float32):
     """Plain version of the peer forward kernel: (B·K, T, D) windows →
     (php, pcp (B·K, T, C) in ``residual_dtype``, ctx (B, T, C) f32 from the
-    f32 h)."""
+    f32 h); the gate products in ``compute_dtype``."""
     _no_tf32(pxs, "peer_fwd plain version")
     rows, t_len, _ = pxs.shape
     batch, k = pwt.shape
@@ -142,7 +151,7 @@ def _peer_fwd_reference(peer_params: LSTMParams, pxs, pwt, residual_dtype):
     ctx = pxs.new_empty((batch, t_len, c_dim))
     h = c = pxs.new_zeros((rows, c_dim))
     for t in range(t_len):
-        i, f, g, o = _gates(peer_params, pxs[:, t], h)
+        i, f, g, o = _gates(peer_params, pxs[:, t], h, compute_dtype)
         c = f * c + i * g
         h = o * torch.tanh(c)
         php[:, t], pcp[:, t] = h, c
@@ -165,15 +174,18 @@ def _rebuilt_ctx(php: torch.Tensor, pwt: torch.Tensor) -> torch.Tensor:
     return ctx
 
 
-def _dw_reference(params, h0, y0, teacher_tm, coins, pwt, php, ys, res, dgates) -> List[LSTMParams]:
+def _dw_reference(params, h0, y0, teacher_tm, coins, pwt, php, ys, res, dgates,
+                  compute_dtype=torch.float32) -> List[LSTMParams]:
     """Plain version of the decoder's dW/db reduction kernel."""
     return lstm_ss._dw_reference(params, h0, y0, teacher_tm, coins, _rebuilt_ctx(php, pwt), ys,
-                                 res, dgates)
+                                 res, dgates, compute_dtype)
 
 
-def _peer_bwd_reference(peer_params: LSTMParams, pxs, pwt, php, pcp, dctx):
+def _peer_bwd_reference(peer_params: LSTMParams, pxs, pwt, php, pcp, dctx,
+                        compute_dtype=torch.float32):
     """Plain version of the peer backward kernel → (dpgates (B·K, T, 4C),
-    dpxs (B·K, T, D), dpwt (B, K)), all f32."""
+    dpxs (B·K, T, D), dpwt (B, K)), all f32; the products in
+    ``compute_dtype``."""
     _no_tf32(dctx, "peer_bwd plain version")
     rows, t_len, d = pxs.shape
     batch, k = pwt.shape
@@ -186,7 +198,7 @@ def _peer_bwd_reference(peer_params: LSTMParams, pxs, pwt, php, pcp, dctx):
     for t in reversed(range(t_len)):
         h_prev = php[:, t - 1].float() if t > 0 else torch.zeros_like(dh)
         c_prev = pcp[:, t - 1].float() if t > 0 else torch.zeros_like(dh)
-        i, f, g, o = _gates(peer_params, pxs[:, t], h_prev)
+        i, f, g, o = _gates(peer_params, pxs[:, t], h_prev, compute_dtype)
         dctx_rows = dctx[:, t].repeat_interleave(k, dim=0)
         dpwt += (dctx_rows * php[:, t].float()).sum(dim=-1)
         dh = w * dctx_rows + dh
@@ -195,17 +207,19 @@ def _peer_bwd_reference(peer_params: LSTMParams, pxs, pwt, php, pcp, dctx):
         dg = torch.cat([dc_total * g * i * (1.0 - i), dc_total * c_prev * f * (1.0 - f),
                         dc_total * i * (1.0 - g * g), dh * tanh_c * o * (1.0 - o)], dim=-1)
         dpgates[:, t] = dg
-        dz = dg @ peer_params.w.t()
+        dz = mm(dg, peer_params.w.t(), compute_dtype)
         dpxs[:, t] = dz[:, :d]
         dh, dc = dz[:, d:], dc_total * f
     return dpgates, dpxs, dpwt.reshape(batch, k)
 
 
-def _peer_dw_reference(peer_params: LSTMParams, pxs, php, dpgates) -> LSTMParams:
+def _peer_dw_reference(peer_params: LSTMParams, pxs, php, dpgates,
+                       compute_dtype=torch.float32) -> LSTMParams:
     """Plain version of the peer dW/db reduction: z = [pxs_t, h_{t-1}] (the
     residual h, zeros at t = 0)."""
     zero = pxs.new_zeros((1, pxs.shape[0], php.shape[-1]))
-    return _lstm_dw_reference([peer_params], pxs, zero, Residuals([php], [], []), [dpgates])[0]
+    return _lstm_dw_reference([peer_params], pxs, zero, Residuals([php], [], []), [dpgates],
+                              compute_dtype)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -253,72 +267,79 @@ def _raise_on(err: int, name: str):
         )
 
 
-def peer_fwd(peer_params: LSTMParams, pxs, pwt, residual_dtype=torch.float32):
+def peer_fwd(peer_params: LSTMParams, pxs, pwt, residual_dtype=torch.float32,
+             compute_dtype=torch.float32):
     """Peer forward → (php, pcp (B·K, T, C) in ``residual_dtype``, ctx
     (B, T, C) f32)."""
     if residual_dtype not in RESIDUAL_DTYPES:
         raise TypeError(f"residual_dtype must be one of {RESIDUAL_DTYPES}, got {residual_dtype}")
+    check_compute(compute_dtype)
     rows, t_len, d, c_dim = _check_peer(peer_params, pxs, _pwt_spec(pwt, pxs.shape[0]))
     batch, k = pwt.shape
     if pxs.device.type == "cpu":
-        return _peer_fwd_reference(peer_params, pxs, pwt, residual_dtype)
+        return _peer_fwd_reference(peer_params, pxs, pwt, residual_dtype, compute_dtype)
     rv = peer_rows(c_dim, k, tile_rows=_TR)
     dev = pxs.device
     php = torch.empty((rows, t_len, c_dim), device=dev, dtype=residual_dtype)
     pcp = torch.empty_like(php)
     ctx = torch.empty((batch, t_len, c_dim), device=dev)
-    _check_card([pxs, pwt, peer_params.w, peer_params.b, php, pcp, ctx])
+    (wp,) = in_compute([peer_params.w], compute_dtype)
+    _check_card([pxs, pwt, wp, peer_params.b, php, pcp, ctx])
     with torch.cuda.device(dev):
         err = _library().align_peer_fwd(
-            pxs.data_ptr(), pwt.data_ptr(), peer_params.w.data_ptr(), peer_params.b.data_ptr(),
+            pxs.data_ptr(), pwt.data_ptr(), wp.data_ptr(), peer_params.b.data_ptr(),
             php.data_ptr(), pcp.data_ptr(), ctx.data_ptr(), batch, k, t_len, d, c_dim, rv,
-            int(residual_dtype == torch.bfloat16), _stream(),
+            int(residual_dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), _stream(),
         )
     _raise_on(err, "peer_fwd")
-    peer_fwd.launches += 1
+    count_launch(peer_fwd, compute_dtype)
     return php, pcp, ctx
 
 
-peer_fwd.launches = 0
+peer_fwd.launches = peer_fwd.launches_bf16 = 0
 
 
 def dec_fwd(params: Sequence[LSTMParams], proj_w, proj_b, h0, c0, y0, teacher_tm, coins, ctx,
-            residual_dtype=torch.float32) -> Tuple[torch.Tensor, Residuals]:
+            residual_dtype=torch.float32, compute_dtype=torch.float32
+            ) -> Tuple[torch.Tensor, Residuals]:
     """Decoder forward with the per-step context ctx (B, T, C) → (ys
     (B, T, D) f32, the residuals)."""
     lstm_ss._check(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, ctx, residual_dtype,
                    step_ctx=True)
+    check_compute(compute_dtype)
     if y0.device.type == "cpu":
         return lstm_ss._forward_reference(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins,
-                                          ctx, residual_dtype)
+                                          ctx, residual_dtype, compute_dtype)
     out = lstm_ss.fwd_launch(_library().align_dec_fwd, "dec_fwd", params, proj_w, proj_b, h0, c0,
-                             y0, teacher_tm, coins, ctx, residual_dtype)
-    dec_fwd.launches += 1
+                             y0, teacher_tm, coins, ctx, residual_dtype, compute_dtype)
+    count_launch(dec_fwd, compute_dtype)
     return out
 
 
-dec_fwd.launches = 0
+dec_fwd.launches = dec_fwd.launches_bf16 = 0
 
 
-def dec_bwd(params: Sequence[LSTMParams], proj_w, c0, coins, res: Residuals, dys, ctx_dim: int):
+def dec_bwd(params: Sequence[LSTMParams], proj_w, c0, coins, res: Residuals, dys, ctx_dim: int,
+            compute_dtype=torch.float32):
     """Decoder backward recurrence → (dgates per layer, dy, dteacher, dy0,
     dh0, dc0, dctx (B, T, C) per step), all f32."""
     lstm_ss.check_bwd(params, proj_w, c0, coins, res, dys, ctx_dim)
+    check_compute(compute_dtype)
     if ctx_dim < 1:
         raise ValueError("the lockstep decoder takes a context: ctx_dim >= 1")
     if dys.device.type == "cpu":
         return lstm_ss._bwd_recurrence_reference(params, proj_w, c0, coins, res, dys, ctx_dim,
-                                                 step_ctx=True)
+                                                 step_ctx=True, compute_dtype=compute_dtype)
     out = lstm_ss.bwd_launch(_library().align_dec_bwd, "dec_bwd", params, proj_w, c0, coins, res,
-                             dys, ctx_dim, step_ctx=True)
-    dec_bwd.launches += 1
+                             dys, ctx_dim, step_ctx=True, compute_dtype=compute_dtype)
+    count_launch(dec_bwd, compute_dtype)
     return out
 
 
-dec_bwd.launches = 0
+dec_bwd.launches = dec_bwd.launches_bf16 = 0
 
 
-def peer_bwd(peer_params: LSTMParams, pxs, pwt, php, pcp, dctx):
+def peer_bwd(peer_params: LSTMParams, pxs, pwt, php, pcp, dctx, compute_dtype=torch.float32):
     """Peer backward recurrence → (dpgates (B·K, T, 4C), dpxs (B·K, T, D),
     dpwt (B, K)), all f32."""
     rows, t_len, _ = pxs.shape
@@ -328,36 +349,38 @@ def peer_bwd(peer_params: LSTMParams, pxs, pwt, php, pcp, dctx):
         peer_params, pxs, _pwt_spec(pwt, rows), (php, (rows, t_len, c_dim), RESIDUAL_DTYPES),
         (pcp, (rows, t_len, c_dim), (rdt,)), (dctx, (pwt.shape[0], t_len, c_dim), (torch.float32,)))
     batch, k = pwt.shape
+    check_compute(compute_dtype)
     if pxs.device.type == "cpu":
-        return _peer_bwd_reference(peer_params, pxs, pwt, php, pcp, dctx)
+        return _peer_bwd_reference(peer_params, pxs, pwt, php, pcp, dctx, compute_dtype)
     r = _lstm_kernel_rows(c_dim, 1, d)
     while r >= _TR and 4 * r * ((d + c_dim) + 6 * c_dim + c_dim // _TJ) > _SMEM_LIMIT:
         r //= 2
     if r < _TR:
         raise ValueError(f"ctx_dim={c_dim}: the peer backward's state does not fit shared memory")
     dev = pxs.device
-    wpt = peer_params.w[d:].t().contiguous()
+    wp, wpt = in_compute([peer_params.w, peer_params.w[d:].t()], compute_dtype)
     dpgates = torch.empty((rows, t_len, 4 * c_dim), device=dev)
     dpxs = torch.empty((rows, t_len, d), device=dev)
     dpwt = torch.empty((batch, k), device=dev)
-    _check_card([pxs, pwt, peer_params.w, wpt, peer_params.b, php, pcp, dctx, dpgates, dpxs, dpwt])
+    _check_card([pxs, pwt, wp, wpt, peer_params.b, php, pcp, dctx, dpgates, dpxs, dpwt])
     with torch.cuda.device(dev):
         err = _library().align_peer_bwd(
-            pxs.data_ptr(), pwt.data_ptr(), peer_params.w.data_ptr(), wpt.data_ptr(),
+            pxs.data_ptr(), pwt.data_ptr(), wp.data_ptr(), wpt.data_ptr(),
             peer_params.b.data_ptr(), php.data_ptr(), pcp.data_ptr(), dctx.data_ptr(),
             dpgates.data_ptr(), dpxs.data_ptr(), dpwt.data_ptr(), batch, k, t_len, d, c_dim, r,
-            int(rdt == torch.bfloat16), _stream(),
+            int(rdt == torch.bfloat16), int(compute_dtype == torch.bfloat16), _stream(),
         )
     _raise_on(err, "peer_bwd")
-    peer_bwd.launches += 1
+    count_launch(peer_bwd, compute_dtype)
     return dpgates, dpxs, dpwt
 
 
-peer_bwd.launches = 0
+peer_bwd.launches = peer_bwd.launches_bf16 = 0
 
 
 def dec_dw(params: Sequence[LSTMParams], h0, y0, teacher_tm, coins, pwt, php, ys,
-           res: Residuals, dgates: Sequence[torch.Tensor]) -> List[LSTMParams]:
+           res: Residuals, dgates: Sequence[torch.Tensor],
+           compute_dtype=torch.float32) -> List[LSTMParams]:
     """The decoder's dW/db reduction, layer 0's context rebuilt from the
     residual peer h ``php`` (B·K, T, C) and ``pwt`` → per layer
     ``LSTMParams(dW, db)``, f32."""
@@ -374,8 +397,10 @@ def dec_dw(params: Sequence[LSTMParams], h0, y0, teacher_tm, coins, pwt, php, ys
     rdt = lstm_ss._check_res(res, layers, batch, t_len, hidden, dev)
     if tuple(php.shape) != (batch * k, t_len, c_dim) or php.dtype != rdt or php.device != dev:
         raise ValueError(f"php {php.dtype} {tuple(php.shape)} does not match the call")
+    check_compute(compute_dtype)
     if dev.type == "cpu":
-        return _dw_reference(params, h0, y0, teacher_tm, coins, pwt, php, ys, res, dgates)
+        return _dw_reference(params, h0, y0, teacher_tm, coins, pwt, php, ys, res, dgates,
+                             compute_dtype)
     if batch * t_len >= 2**31:
         raise ValueError(f"B·T = {batch * t_len} rows do not fit the kernel's 32-bit row index")
     splits = dw_splits(batch, t_len, hidden, d + c_dim, _n_sm(dev))
@@ -390,25 +415,27 @@ def dec_dw(params: Sequence[LSTMParams], h0, y0, teacher_tm, coins, pwt, php, ys
             h0.data_ptr(), y0.data_ptr(), teacher_tm.data_ptr(), coins.data_ptr(), php.data_ptr(),
             pwt.data_ptr(), ys.data_ptr(), _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs),
             _ptrs(dgates), partial.data_ptr(), _ptrs(dws), _ptrs(dbs), batch, t_len, d, c_dim,
-            k, hidden, layers, splits, int(rdt == torch.bfloat16), _stream(),
+            k, hidden, layers, splits, int(rdt == torch.bfloat16),
+            int(compute_dtype == torch.bfloat16), _stream(),
         )
     _raise_on(err, "dec_dw")
-    dec_dw.launches += 1
+    count_launch(dec_dw, compute_dtype)
     return [LSTMParams(w=w, b=b) for w, b in zip(dws, dbs)]
 
 
-dec_dw.launches = 0
+dec_dw.launches = dec_dw.launches_bf16 = 0
 
 
-def peer_dw(peer_params: LSTMParams, pxs, php, dpgates) -> LSTMParams:
+def peer_dw(peer_params: LSTMParams, pxs, php, dpgates, compute_dtype=torch.float32) -> LSTMParams:
     """The peer encoder's dW/db reduction over the B·K·T rows, z =
     [pxs_t, h_{t-1}] → ``LSTMParams(dWp, dbp)``, f32."""
     rows, t_len, d = pxs.shape
     c_dim = peer_params.w.shape[1] // 4
     _check_peer(peer_params, pxs, (php, (rows, t_len, c_dim), RESIDUAL_DTYPES),
                 (dpgates, (rows, t_len, 4 * c_dim), (torch.float32,)))
+    check_compute(compute_dtype)
     if pxs.device.type == "cpu":
-        return _peer_dw_reference(peer_params, pxs, php, dpgates)
+        return _peer_dw_reference(peer_params, pxs, php, dpgates, compute_dtype)
     dev = pxs.device
     splits = dw_splits(rows, t_len, c_dim, d, _n_sm(dev))
     zero = torch.zeros((rows, c_dim), device=dev)
@@ -419,14 +446,14 @@ def peer_dw(peer_params: LSTMParams, pxs, php, dpgates) -> LSTMParams:
         err = _library().align_peer_dw(
             pxs.data_ptr(), zero.data_ptr(), php.data_ptr(), dpgates.data_ptr(), partial.data_ptr(),
             dw.data_ptr(), db.data_ptr(), rows, t_len, d, c_dim, splits,
-            int(php.dtype == torch.bfloat16), _stream(),
+            int(php.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), _stream(),
         )
     _raise_on(err, "peer_dw")
-    peer_dw.launches += 1
+    count_launch(peer_dw, compute_dtype)
     return LSTMParams(w=dw, b=db)
 
 
-peer_dw.launches = 0
+peer_dw.launches = peer_dw.launches_bf16 = 0
 
 
 @functools.cache
@@ -435,12 +462,12 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("lstm_align")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
-    lib.align_peer_fwd.argtypes = [vp] * 7 + [i32] * 7 + [vp]
-    lib.align_dec_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 8 + [vp]
-    lib.align_dec_bwd.argtypes = [vp, vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 8 + [vp]
-    lib.align_peer_bwd.argtypes = [vp] * 11 + [i32] * 7 + [vp]
-    lib.align_dec_dw.argtypes = [vp] * 7 + [arr] * 4 + [vp, arr, arr] + [i32] * 9 + [vp]
-    lib.align_peer_dw.argtypes = [vp] * 7 + [i32] * 6 + [vp]
+    lib.align_peer_fwd.argtypes = [vp] * 7 + [i32] * 8 + [vp]
+    lib.align_dec_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 9 + [vp]
+    lib.align_dec_bwd.argtypes = [vp, vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 9 + [vp]
+    lib.align_peer_bwd.argtypes = [vp] * 11 + [i32] * 8 + [vp]
+    lib.align_dec_dw.argtypes = [vp] * 7 + [arr] * 4 + [vp, arr, arr] + [i32] * 10 + [vp]
+    lib.align_peer_dw.argtypes = [vp] * 7 + [i32] * 7 + [vp]
     for f in (lib.align_peer_fwd, lib.align_dec_fwd, lib.align_dec_bwd, lib.align_peer_bwd,
               lib.align_dec_dw, lib.align_peer_dw):
         f.restype = i32
@@ -456,16 +483,16 @@ def _library() -> ctypes.CDLL:
 
 class _AlignedSSDecode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, residual_dtype, proj_w, proj_b, peer_w, peer_b, h0, c0, y0, teacher_tm,
-                pxs_tm, coins, pwt, *flat):
+    def forward(ctx, residual_dtype, compute_dtype, proj_w, proj_b, peer_w, peer_b, h0, c0, y0,
+                teacher_tm, pxs_tm, coins, pwt, *flat):
         params = [LSTMParams(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
         peer = LSTMParams(peer_w, peer_b)
         pxs = peer_rows_of(pxs_tm, pwt.shape[1])
-        php, pcp, context = peer_fwd(peer, pxs, pwt, residual_dtype)
+        php, pcp, context = peer_fwd(peer, pxs, pwt, residual_dtype, compute_dtype)
         ys, res = dec_fwd(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context,
-                          residual_dtype)
+                          residual_dtype, compute_dtype)
         del context  # the backward rebuilds ctx from php, as the TPU backward does
-        ctx.layers = len(params)
+        ctx.layers, ctx.compute_dtype = len(params), compute_dtype
         ctx.save_for_backward(proj_w, peer_w, peer_b, h0, c0, y0, teacher_tm, coins, pwt, pxs,
                               php, pcp, ys, *flat, *res.hs, *res.cs, *res.gs)
         return ys
@@ -479,15 +506,16 @@ class _AlignedSSDecode(torch.autograd.Function):
         params = [LSTMParams(flat[i], flat[i + 1]) for i in range(0, 2 * n, 2)]
         peer = LSTMParams(peer_w, peer_b)
         res = Residuals(list(rest[:n]), list(rest[n: 2 * n]), list(rest[2 * n:]))
+        cd = ctx.compute_dtype
         dgates, dy, dteacher, dy0, dh0, dc0, dctx = dec_bwd(
-            params, proj_w, c0, coins, res, dys.float().contiguous(), php.shape[-1])
-        dpgates, dpxs, dpwt = peer_bwd(peer, pxs, pwt, php, pcp, dctx)
-        dparams = dec_dw(params, h0, y0, teacher_tm, coins, pwt, php, ys, res, dgates)
-        dpeer = peer_dw(peer, pxs, php, dpgates)
-        dpw, dpb = lstm_ss.ss_dproj(res.hs[-1], dy)
+            params, proj_w, c0, coins, res, dys.float().contiguous(), php.shape[-1], cd)
+        dpgates, dpxs, dpwt = peer_bwd(peer, pxs, pwt, php, pcp, dctx, cd)
+        dparams = dec_dw(params, h0, y0, teacher_tm, coins, pwt, php, ys, res, dgates, cd)
+        dpeer = peer_dw(peer, pxs, php, dpgates, cd)
+        dpw, dpb = lstm_ss.ss_dproj(res.hs[-1], dy, cd)
         flat_grads = [g for p in dparams for g in (p.w, p.b)]
         # coins get no gradient
-        return (None, dpw, dpb, dpeer.w, dpeer.b, dh0, dc0, dy0, dteacher,
+        return (None, None, dpw, dpb, dpeer.w, dpeer.b, dh0, dc0, dy0, dteacher,
                 _time_major(dpxs, y0.shape[0]), None, dpwt, *flat_grads)
 
 
@@ -508,20 +536,16 @@ def aligned_ss_decode(
     """Lockstep-peer scheduled-sampling decoder → (B, T, D) f32 predictions;
     differentiable in the decoder, projection and peer-encoder params, h0,
     c0, y0, the teacher, the peer windows and the mask weights through the
-    kernels' backward (coins get no gradient).
-
-    Only f32 compute is ported: ``compute_dtype=torch.bfloat16`` raises."""
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"aligned_ss_decode: only f32 compute is ported, got compute_dtype={compute_dtype} "
-            f"(ROADMAP.md Queue 2, the bf16-compute tiers)"
-        )
+    kernels' backward (coins get no gradient), which runs in the forward's
+    ``compute_dtype``."""
+    check_compute(compute_dtype)
     coins, pwt = coins_pwt
     t_len, batch, d = teacher_tm.shape
     if pwt.dim() != 2 or pwt.shape[0] != batch or tuple(pxs_tm.shape) != (t_len, batch, pwt.shape[1] * d):
         raise ValueError(f"pxs_tm {tuple(pxs_tm.shape)} and pwt {tuple(pwt.shape)} do not match "
                          f"the teacher {tuple(teacher_tm.shape)}")
     flat = [t for p in dec_params for t in (p.w, p.b)]
-    return _AlignedSSDecode.apply(residual_dtype, proj_w, proj_b, peer_params.w, peer_params.b,
-                                  h0, c0, y0, teacher_tm.contiguous(), pxs_tm.contiguous(),
-                                  coins.contiguous(), pwt.contiguous(), *flat)
+    return _AlignedSSDecode.apply(residual_dtype, compute_dtype, proj_w, proj_b, peer_params.w,
+                                  peer_params.b, h0, c0, y0, teacher_tm.contiguous(),
+                                  pxs_tm.contiguous(), coins.contiguous(), pwt.contiguous(),
+                                  *flat)

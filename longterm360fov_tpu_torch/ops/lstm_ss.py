@@ -10,7 +10,11 @@ its layer-0 input is ``[x_t, ctx]`` with ``x_t = teacher_t`` where
 t = 0) elsewhere; L stacked cells follow, then ``y_t = h_top · proj_w +
 proj_b``, which is fed back. It returns ``ys (B, T, D)`` f32. Coins arrive
 as an explicit ``(T, B, 1)`` array; ``teacher_tm`` is ``(T, B, D)``, as in
-JAX.
+JAX. ``compute_dtype`` bf16 is the JAX ``compute_dtype=bfloat16`` tier, as
+in ``ops.lstm_train``: the operands of every product (here also the
+projection ``h_top·proj_w``, ``dy·proj_wᵀ`` and ``dproj_w = Σ h_topᵀ·dy``)
+rounded to bf16 and summed in f32; ``ys``, the fed-back ``y``, ``db`` and
+``dproj_b`` unrounded.
 
 Four kernels of ``csrc/lstm_ss.cu`` carry it on the card:
 
@@ -33,7 +37,8 @@ adds in a fixed order: no float atomics, so two runs give the same bits.
 Each wrapper runs its plain version (``_forward_reference``,
 ``_bwd_recurrence_reference``, ``_dw_reference``, ``_dproj_reference``) on
 CPU tensors, and launches its kernel on CUDA tensors or raises; it never
-falls back. Each counts its kernel launches in ``.launches``.
+falls back. Each counts its kernel launches in ``.launches`` (f32 compute)
+and ``.launches_bf16`` (bf16 compute).
 :func:`ss_decode_reference` is the decoder as a step loop of
 ``cell.lstm_cell``, whose gradient torch autograd gives.
 """
@@ -46,7 +51,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..models.cell import LSTMParams, lstm_cell
+from ..models.cell import LSTMParams, lstm_cell, mm
 from . import _build
 from .lstm_train import (
     RESIDUAL_DTYPES,
@@ -56,7 +61,10 @@ from .lstm_train import (
     _n_sm,
     _no_tf32,
     _ptrs,
+    check_compute,
+    count_launch,
     dw_splits,
+    in_compute,
     kernel_rows as _lstm_kernel_rows,
 )
 
@@ -104,11 +112,13 @@ def ss_decode_reference(
 
 def _forward_reference(
     params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, residual_dtype,
+    compute_dtype=torch.float32,
 ) -> Tuple[torch.Tensor, Residuals]:
     """Plain version of the forward kernel: the recurrence in f32 with f32
-    carries and the f32 feedback, every step's h, c and gates stored in
-    ``residual_dtype`` → (ys (B, T, D) f32, residuals). ``context`` is
-    (B, C), or (B, T, C) for a per-step context (``ops.lstm_align``)."""
+    carries and the f32 feedback, the products in ``compute_dtype``, every
+    step's h, c and gates stored in ``residual_dtype`` → (ys (B, T, D) f32,
+    residuals). ``context`` is (B, C), or (B, T, C) for a per-step context
+    (``ops.lstm_align``)."""
     _no_tf32(y0, "ss_fwd plain version")
     t_len, batch, d = teacher_tm.shape
     hidden = h0.shape[-1]
@@ -126,7 +136,7 @@ def _forward_reference(
         if context is not None:
             inp = torch.cat([inp, context[:, t] if context.dim() == 3 else context], dim=-1)
         for l, p in enumerate(params):
-            gates = torch.cat([inp, h[l]], dim=-1) @ p.w + p.b
+            gates = mm(torch.cat([inp, h[l]], dim=-1), p.w, compute_dtype) + p.b
             i, f, g, o = gates.chunk(4, dim=-1)
             i, f, g, o = i.sigmoid(), f.sigmoid(), g.tanh(), o.sigmoid()
             c[l] = f * c[l] + i * g
@@ -135,17 +145,17 @@ def _forward_reference(
             res.cs[l][:, t] = c[l]
             res.hs[l][:, t] = h[l]
             inp = h[l]
-        y = inp @ proj_w + proj_b
+        y = mm(inp, proj_w, compute_dtype) + proj_b
         ys[:, t] = y
     return ys, res
 
 
 def _bwd_recurrence_reference(params, proj_w, c0, coins, res: Residuals, dys, ctx_dim,
-                              step_ctx=False):
+                              step_ctx=False, compute_dtype=torch.float32):
     """Plain version of the backward recurrence kernel → (dgates per layer
     (B, T, 4H), dy (B, T, D), dteacher (T, B, D), dy0 (B, D), dh0, dc0
     (L, B, H), dctx (B, C) summed over t, or (B, T, C) per step with
-    ``step_ctx``, or None), all f32."""
+    ``step_ctx``, or None), all f32; the products in ``compute_dtype``."""
     _no_tf32(dys, "ss_bwd plain version")
     batch, t_len, d = dys.shape
     hidden = proj_w.shape[0]
@@ -160,7 +170,7 @@ def _bwd_recurrence_reference(params, proj_w, c0, coins, res: Residuals, dys, ct
     for t in reversed(range(t_len)):
         dy_t = dys[:, t] + feedback
         dy[:, t] = dy_t
-        above = dy_t @ proj_w.t()
+        above = mm(dy_t, proj_w.t(), compute_dtype)
         for l in reversed(range(layers)):
             d_in = d + ctx_dim if l == 0 else hidden
             i, f, g, o = res.gs[l][:, t].float().chunk(4, dim=-1)
@@ -176,7 +186,7 @@ def _bwd_recurrence_reference(params, proj_w, c0, coins, res: Residuals, dys, ct
                 dh_total * tanh_c * o * (1.0 - o),
             ], dim=-1)
             dgates[l][:, t] = dg
-            dz = dg @ params[l].w.t()
+            dz = mm(dg, params[l].w.t(), compute_dtype)
             dh[l] = dz[:, d_in:]
             dc[l] = dc_total * f
             above = dz[:, :d_in]
@@ -206,20 +216,22 @@ def _layer0_input(y0, teacher_tm, coins, context, ys):
     return torch.cat([x, context], dim=-1)
 
 
-def _dw_reference(params, h0, y0, teacher_tm, coins, context, ys, res, dgates) -> List[LSTMParams]:
+def _dw_reference(params, h0, y0, teacher_tm, coins, context, ys, res, dgates,
+                  compute_dtype=torch.float32) -> List[LSTMParams]:
     """Plain version of the dW/db reduction kernel."""
     return _lstm_dw_reference(
-        params, _layer0_input(y0, teacher_tm, coins, context, ys), h0, res, dgates
+        params, _layer0_input(y0, teacher_tm, coins, context, ys), h0, res, dgates,
+        compute_dtype,
     )
 
 
-def _dproj_reference(hs_top: torch.Tensor, dy: torch.Tensor):
-    """Plain version of the dproj reduction kernel → (dproj_w (H, D),
-    dproj_b (D,))."""
+def _dproj_reference(hs_top: torch.Tensor, dy: torch.Tensor, compute_dtype=torch.float32):
+    """Plain version of the dproj reduction kernel → (dproj_w (H, D) in
+    ``compute_dtype``, dproj_b (D,) unrounded)."""
     _no_tf32(dy, "ss_dproj plain version")
     h = hs_top.float().reshape(-1, hs_top.shape[-1])
     g = dy.reshape(-1, dy.shape[-1])
-    return h.t() @ g, g.sum(dim=0)
+    return mm(h.t(), g, compute_dtype), g.sum(dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +280,7 @@ def _check(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, resid
         if tuple(t.shape) != shape:
             raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
         if t.dtype != torch.float32:
-            raise TypeError(f"the f32 tier takes float32 tensors, got {t.dtype}")
+            raise TypeError(f"the kernels take float32 tensors, got {t.dtype}")
         if t.device != y0.device:
             raise ValueError(f"tensors on {t.device} and {y0.device}")
     if y0.device.type not in ("cpu", "cuda"):
@@ -318,20 +330,22 @@ def _stream():
 def ss_fwd(
     params: Sequence[LSTMParams], proj_w, proj_b, h0, c0, y0, teacher_tm, coins,
     context: Optional[torch.Tensor], residual_dtype: torch.dtype = torch.float32,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, Residuals]:
     """Forward recurrence → (ys (B, T, D) f32, the residuals)."""
     _check(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, residual_dtype)
+    check_compute(compute_dtype)
     if y0.device.type == "cpu":
         return _forward_reference(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins,
-                                  context, residual_dtype)
+                                  context, residual_dtype, compute_dtype)
     out = fwd_launch(_library().ss_fwd, "ss_fwd", params, proj_w, proj_b, h0, c0, y0,
-                     teacher_tm, coins, context, residual_dtype)
-    ss_fwd.launches += 1
+                     teacher_tm, coins, context, residual_dtype, compute_dtype)
+    count_launch(ss_fwd, compute_dtype)
     return out
 
 
 def fwd_launch(fn, name, params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context,
-               residual_dtype):
+               residual_dtype, compute_dtype):
     """Launch a forward recurrence kernel (``fn``: ``ss_fwd`` here, or
     ``ops.lstm_align``'s per-step-context instance, which takes the same
     arguments) on checked CUDA tensors → (ys, residuals)."""
@@ -347,7 +361,8 @@ def fwd_launch(fn, name, params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, 
 
     res = Residuals(empty(hidden), empty(hidden), empty(4 * hidden))
     ys = torch.empty((batch, t_len, d), device=dev)
-    ws, bs = [p.w for p in params], [p.b for p in params]
+    ws, bs = in_compute([p.w for p in params], compute_dtype), [p.b for p in params]
+    (proj_w,) = in_compute([proj_w], compute_dtype)
     ctx_t = [] if context is None else [context]
     _check_card([proj_w, proj_b, h0, c0, y0, teacher_tm, coins, *ctx_t, *ws, *bs,
                  *res.hs, *res.cs, *res.gs, ys])
@@ -358,13 +373,13 @@ def fwd_launch(fn, name, params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, 
             _ptrs(ws), _ptrs(bs), proj_w.data_ptr(), proj_b.data_ptr(),
             _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs), ys.data_ptr(),
             batch, t_len, d, ctx_dim, hidden, layers, rows,
-            int(residual_dtype == torch.bfloat16), _stream(),
+            int(residual_dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), _stream(),
         )
     _raise_on(err, name)
     return ys, res
 
 
-ss_fwd.launches = 0
+ss_fwd.launches = ss_fwd.launches_bf16 = 0
 
 
 def _transposed(params: Sequence[LSTMParams], d_in0: int, ctx_dim: int):
@@ -385,16 +400,19 @@ def _transposed(params: Sequence[LSTMParams], d_in0: int, ctx_dim: int):
 
 def ss_bwd(
     params: Sequence[LSTMParams], proj_w, c0, coins, res: Residuals, dys, ctx_dim: int,
+    compute_dtype: torch.dtype = torch.float32,
 ):
     """Backward recurrence → (dgates per layer (B, T, 4H), dy (B, T, D),
     dteacher (T, B, D), dy0 (B, D), dh0, dc0 (L, B, H), dctx (B, C) or
     None), all f32."""
     check_bwd(params, proj_w, c0, coins, res, dys, ctx_dim)
+    check_compute(compute_dtype)
     if dys.device.type == "cpu":
-        return _bwd_recurrence_reference(params, proj_w, c0, coins, res, dys, ctx_dim)
+        return _bwd_recurrence_reference(params, proj_w, c0, coins, res, dys, ctx_dim,
+                                         compute_dtype=compute_dtype)
     out = bwd_launch(_library().ss_bwd, "ss_bwd", params, proj_w, c0, coins, res, dys, ctx_dim,
-                     step_ctx=False)
-    ss_bwd.launches += 1
+                     step_ctx=False, compute_dtype=compute_dtype)
+    count_launch(ss_bwd, compute_dtype)
     return out
 
 
@@ -409,7 +427,8 @@ def check_bwd(params, proj_w, c0, coins, res: Residuals, dys, ctx_dim: int):
     _check_res(res, layers, batch, t_len, hidden, dev)
 
 
-def bwd_launch(fn, name, params, proj_w, c0, coins, res: Residuals, dys, ctx_dim, *, step_ctx):
+def bwd_launch(fn, name, params, proj_w, c0, coins, res: Residuals, dys, ctx_dim, *, step_ctx,
+               compute_dtype):
     """Launch a backward recurrence kernel (``fn``: ``ss_bwd``, or with
     ``step_ctx`` ``ops.lstm_align``'s per-step-context instance, which
     writes dctx (B, T, C)) on checked CUDA tensors."""
@@ -420,6 +439,10 @@ def bwd_launch(fn, name, params, proj_w, c0, coins, res: Residuals, dys, ctx_dim
     _ctx_ok(ctx_dim)
     rows = kernel_rows(hidden, layers, d, ctx_dim)
     wt, wtc = _transposed(params, d + ctx_dim, ctx_dim)
+    wt = in_compute(wt, compute_dtype)
+    w0, proj_w = in_compute([params[0].w, proj_w], compute_dtype)
+    if wtc is not None:
+        (wtc,) = in_compute([wtc], compute_dtype)
     dgates = [torch.empty((batch, t_len, 4 * hidden), device=dev) for _ in params]
     dy = torch.empty((batch, t_len, d), device=dev)
     dteacher = torch.empty((t_len, batch, d), device=dev)
@@ -430,27 +453,28 @@ def bwd_launch(fn, name, params, proj_w, c0, coins, res: Residuals, dys, ctx_dim
     if ctx_dim:
         dctx = torch.empty((batch, t_len, ctx_dim) if step_ctx else (batch, ctx_dim), device=dev)
     extra = [] if wtc is None else [wtc, dctx]
-    _check_card([proj_w, c0, coins, dys, params[0].w, *wt, *res.cs, *res.gs, *dgates,
+    _check_card([proj_w, c0, coins, dys, w0, *wt, *res.cs, *res.gs, *dgates,
                  dy, dteacher, dy0, dh0, dc0, *extra])
     with torch.cuda.device(dev):
         err = fn(
-            dys.data_ptr(), c0.data_ptr(), coins.data_ptr(), params[0].w.data_ptr(),
+            dys.data_ptr(), c0.data_ptr(), coins.data_ptr(), w0.data_ptr(),
             _ptrs(wt), None if wtc is None else wtc.data_ptr(), proj_w.data_ptr(),
             _ptrs(res.cs), _ptrs(res.gs), _ptrs(dgates), dy.data_ptr(), dteacher.data_ptr(),
             dy0.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
             None if dctx is None else dctx.data_ptr(),
-            batch, t_len, d, ctx_dim, hidden, layers, rows, int(rdt == torch.bfloat16), _stream(),
+            batch, t_len, d, ctx_dim, hidden, layers, rows, int(rdt == torch.bfloat16),
+            int(compute_dtype == torch.bfloat16), _stream(),
         )
     _raise_on(err, name)
     return dgates, dy, dteacher, dy0, dh0, dc0, dctx
 
 
-ss_bwd.launches = 0
+ss_bwd.launches = ss_bwd.launches_bf16 = 0
 
 
 def ss_dw(
     params: Sequence[LSTMParams], h0, y0, teacher_tm, coins, context, ys,
-    res: Residuals, dgates: Sequence[torch.Tensor],
+    res: Residuals, dgates: Sequence[torch.Tensor], compute_dtype: torch.dtype = torch.float32,
 ) -> List[LSTMParams]:
     """dW/db reduction → per layer ``LSTMParams(dW, db)``, f32."""
     t_len, batch, d = teacher_tm.shape
@@ -466,8 +490,10 @@ def ss_dw(
     if len(dgates) != layers:
         raise ValueError(f"{len(dgates)} dgates for {layers} layers")
     rdt = _check_res(res, layers, batch, t_len, hidden, dev)
+    check_compute(compute_dtype)
     if dev.type == "cpu":
-        return _dw_reference(params, h0, y0, teacher_tm, coins, context, ys, res, dgates)
+        return _dw_reference(params, h0, y0, teacher_tm, coins, context, ys, res, dgates,
+                             compute_dtype)
     if batch * t_len >= 2**31:
         raise ValueError(f"B·T = {batch * t_len} rows do not fit the kernel's 32-bit row index")
     splits = dw_splits(batch, t_len, hidden, d + ctx_dim, _n_sm(dev))
@@ -485,17 +511,18 @@ def ss_dw(
             None if context is None else context.data_ptr(), ys.data_ptr(),
             _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs), _ptrs(dgates), partial.data_ptr(),
             _ptrs(dws), _ptrs(dbs), batch, t_len, d, ctx_dim, hidden, layers, splits,
-            int(rdt == torch.bfloat16), _stream(),
+            int(rdt == torch.bfloat16), int(compute_dtype == torch.bfloat16), _stream(),
         )
     _raise_on(err, "ss_dw")
-    ss_dw.launches += 1
+    count_launch(ss_dw, compute_dtype)
     return [LSTMParams(w=w, b=b) for w, b in zip(dws, dbs)]
 
 
-ss_dw.launches = 0
+ss_dw.launches = ss_dw.launches_bf16 = 0
 
 
-def ss_dproj(hs_top: torch.Tensor, dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def ss_dproj(hs_top: torch.Tensor, dy: torch.Tensor,
+             compute_dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """dproj reduction → (dproj_w (H, D), dproj_b (D,)), f32."""
     batch, t_len, d = dy.shape
     hidden = hs_top.shape[-1]
@@ -504,8 +531,9 @@ def ss_dproj(hs_top: torch.Tensor, dy: torch.Tensor) -> Tuple[torch.Tensor, torc
     if tuple(hs_top.shape) != (batch, t_len, hidden) or hs_top.device != dy.device:
         raise ValueError(f"hs_top {tuple(hs_top.shape)} on {hs_top.device} does not match dy "
                          f"{tuple(dy.shape)} on {dy.device}")
+    check_compute(compute_dtype)
     if dy.device.type == "cpu":
-        return _dproj_reference(hs_top, dy)
+        return _dproj_reference(hs_top, dy, compute_dtype)
     if not 1 <= d <= 4 or hidden + 32 > 1024 or batch * t_len >= 2**31:
         raise ValueError(f"the kernel takes 1 <= D <= 4, H <= 992 and B·T < 2^31, got D={d}, "
                          f"H={hidden}, B·T={batch * t_len}")
@@ -519,14 +547,15 @@ def ss_dproj(hs_top: torch.Tensor, dy: torch.Tensor) -> Tuple[torch.Tensor, torc
     with torch.cuda.device(dev):
         err = lib.ss_dproj(
             hs_top.data_ptr(), dy.data_ptr(), partial.data_ptr(), dpw.data_ptr(), dpb.data_ptr(),
-            batch, t_len, d, hidden, splits, int(hs_top.dtype == torch.bfloat16), _stream(),
+            batch, t_len, d, hidden, splits, int(hs_top.dtype == torch.bfloat16),
+            int(compute_dtype == torch.bfloat16), _stream(),
         )
     _raise_on(err, "ss_dproj")
-    ss_dproj.launches += 1
+    count_launch(ss_dproj, compute_dtype)
     return dpw, dpb
 
 
-ss_dproj.launches = 0
+ss_dproj.launches = ss_dproj.launches_bf16 = 0
 
 
 @functools.cache
@@ -535,10 +564,10 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("lstm_ss")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
-    lib.ss_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 8 + [vp]
-    lib.ss_bwd.argtypes = [vp, vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 8 + [vp]
-    lib.ss_dw.argtypes = [vp] * 6 + [arr] * 4 + [vp, arr, arr] + [i32] * 8 + [vp]
-    lib.ss_dproj.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+    lib.ss_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 9 + [vp]
+    lib.ss_bwd.argtypes = [vp, vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 9 + [vp]
+    lib.ss_dw.argtypes = [vp] * 6 + [arr] * 4 + [vp, arr, arr] + [i32] * 9 + [vp]
+    lib.ss_dproj.argtypes = [vp] * 5 + [i32] * 7 + [vp]
     for f in (lib.ss_fwd, lib.ss_bwd, lib.ss_dw, lib.ss_dproj):
         f.restype = i32
     lib.lstm_ss_error_string.argtypes = [i32]
@@ -553,13 +582,13 @@ def _library() -> ctypes.CDLL:
 
 class _SSDecode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, residual_dtype, has_ctx, proj_w, proj_b, h0, c0, y0, teacher_tm, coins,
-                context, *flat):
+    def forward(ctx, residual_dtype, compute_dtype, has_ctx, proj_w, proj_b, h0, c0, y0,
+                teacher_tm, coins, context, *flat):
         params = [LSTMParams(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
         context = context if has_ctx else None
         ys, res = ss_fwd(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context,
-                         residual_dtype)
-        ctx.layers, ctx.has_ctx = len(params), has_ctx
+                         residual_dtype, compute_dtype)
+        ctx.layers, ctx.has_ctx, ctx.compute_dtype = len(params), has_ctx, compute_dtype
         saved_ctx = [context] if has_ctx else []
         ctx.save_for_backward(proj_w, h0, c0, y0, teacher_tm, coins, ys, *saved_ctx, *flat,
                               *res.hs, *res.cs, *res.gs)
@@ -574,14 +603,15 @@ class _SSDecode(torch.autograd.Function):
         params = [LSTMParams(flat[i], flat[i + 1]) for i in range(0, 2 * n, 2)]
         res = Residuals(list(rest[:n]), list(rest[n: 2 * n]), list(rest[2 * n:]))
         ctx_dim = 0 if context is None else context.shape[-1]
+        cd = ctx.compute_dtype
         dgates, dy, dteacher, dy0, dh0, dc0, dctx = ss_bwd(
-            params, proj_w, c0, coins, res, dys.float().contiguous(), ctx_dim
+            params, proj_w, c0, coins, res, dys.float().contiguous(), ctx_dim, cd
         )
-        dparams = ss_dw(params, h0, y0, teacher_tm, coins, context, ys, res, dgates)
-        dpw, dpb = ss_dproj(res.hs[-1], dy)
+        dparams = ss_dw(params, h0, y0, teacher_tm, coins, context, ys, res, dgates, cd)
+        dpw, dpb = ss_dproj(res.hs[-1], dy, cd)
         flat_grads = [g for p in dparams for g in (p.w, p.b)]
         # coins get no gradient; a context that is absent none either
-        return (None, None, dpw, dpb, dh0, dc0, dy0, dteacher, None, dctx, *flat_grads)
+        return (None, None, None, dpw, dpb, dh0, dc0, dy0, dteacher, None, dctx, *flat_grads)
 
 
 def ss_decode(
@@ -599,20 +629,14 @@ def ss_decode(
     """Scheduled-sampling decoder → (B, T, D) f32 predictions;
     differentiable in the params, ``proj_w``, ``proj_b``, ``h0``, ``c0``,
     ``y0``, ``teacher_tm`` and the context through the kernels' backward
-    (coins get no gradient).
-
-    Only f32 compute is ported: ``compute_dtype=torch.bfloat16`` raises."""
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"ss_decode: only f32 compute is ported, got compute_dtype={compute_dtype} "
-            f"(ROADMAP.md Queue 2, the bf16-compute tier of ss_decode)"
-        )
+    (coins get no gradient), which runs in the forward's ``compute_dtype``."""
     coins, context = coins_ctx
     _check(dec_params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, residual_dtype)
+    check_compute(compute_dtype)
     flat = [t for p in dec_params for t in (p.w, p.b)]
     has_ctx = context is not None
     # autograd needs a tensor in every slot; an absent context rides as an
     # empty tensor and gets no gradient
     ctx_arg = context if has_ctx else y0.new_empty((0,))
-    return _SSDecode.apply(residual_dtype, has_ctx, proj_w, proj_b, h0, c0, y0,
+    return _SSDecode.apply(residual_dtype, compute_dtype, has_ctx, proj_w, proj_b, h0, c0, y0,
                            teacher_tm.contiguous(), coins.contiguous(), ctx_arg, *flat)

@@ -8,6 +8,10 @@ states ``h0, c0 (L, B, H)`` and returns ``hs_top (B, T, H)``, ``hT`` and
 ``cT (L, B, H)``, all f32. Its gradient comes from the saved residuals: per
 layer ``hs`` and ``cs (B, T, H)`` and the post-activation gates
 ``(B, T, 4H)`` (order i, f, g, o), in ``residual_dtype`` (f32 or bf16).
+``compute_dtype`` bf16 is the JAX ``compute_dtype=bfloat16`` tier: both
+operands of every product (the gate products ``[x, h]·W``, ``dgates·Wᵀ``
+and the dW sums ``zᵀ·dgates``) are rounded to bf16 and the products summed
+in f32; ``db``, the carries, gates, residuals and dgates stay unrounded.
 
 Three kernels of ``csrc/lstm_train.cu`` carry it on the card:
 
@@ -23,7 +27,8 @@ Three kernels of ``csrc/lstm_train.cu`` carry it on the card:
 Each wrapper runs its plain version (``_forward_reference``,
 ``_bwd_recurrence_reference``, ``_dw_reference``) on CPU tensors, and
 launches its kernel on CUDA tensors or raises; it never falls back. Each
-counts its kernel launches in ``.launches``.
+counts its kernel launches in ``.launches`` (f32 compute) and
+``.launches_bf16`` (bf16 compute).
 
 As in the JAX kernel, ``hT``, ``cT`` and ``hs_top`` are read back from the
 residual streams, so with bf16 residuals they are bf16-rounded; the
@@ -40,7 +45,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
-from ..models.cell import LSTMParams, lstm_cell
+from ..models.cell import LSTMParams, lstm_cell, mm
 from . import _build
 
 __all__ = [
@@ -61,6 +66,7 @@ _MAX_THREADS = 256  # the recurrence kernels' __launch_bounds__
 _TR, _TJ = 4, 4  # rows and hidden units per thread
 _DW_TILE = 128  # csrc/lstm_train.cu DW_T: rows and columns of a dW tile
 RESIDUAL_DTYPES = (torch.float32, torch.bfloat16)
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class Residuals(NamedTuple):
@@ -107,9 +113,11 @@ def lstm_seq_states_reference(
 def _forward_reference(
     params: Sequence[LSTMParams], xs: torch.Tensor, h0: torch.Tensor,
     c0: torch.Tensor, residual_dtype: torch.dtype,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> Residuals:
     """Plain version of the forward kernel: the recurrence in f32 with f32
-    carries, every step's h, c and gates stored in ``residual_dtype``."""
+    carries, the gate products in ``compute_dtype``, every step's h, c and
+    gates stored in ``residual_dtype``."""
     _no_tf32(xs, "lstm_fwd plain version")
     batch, t_len, _ = xs.shape
     hidden = h0.shape[-1]
@@ -123,7 +131,7 @@ def _forward_reference(
     for t in range(t_len):
         inp = xs[:, t]
         for l, p in enumerate(params):
-            gates = torch.cat([inp, h[l]], dim=-1) @ p.w + p.b
+            gates = mm(torch.cat([inp, h[l]], dim=-1), p.w, compute_dtype) + p.b
             i, f, g, o = gates.chunk(4, dim=-1)
             i, f, g, o = i.sigmoid(), f.sigmoid(), g.tanh(), o.sigmoid()
             c[l] = f * c[l] + i * g
@@ -138,10 +146,12 @@ def _forward_reference(
 def _bwd_recurrence_reference(
     params: Sequence[LSTMParams], c0: torch.Tensor, res: Residuals,
     dhs_top: torch.Tensor, dhT: torch.Tensor, dcT: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward recurrence kernel: reverse time, per
     layer top-down, carrying (dh, dc) → (dgates per layer (B, T, 4H),
-    dxs (B, T, D), dh0, dc0 (L, B, H)), all f32."""
+    dxs (B, T, D), dh0, dc0 (L, B, H)), all f32; ``dgates · Wᵀ`` in
+    ``compute_dtype``."""
     _no_tf32(dhs_top, "lstm_bwd plain version")
     batch, t_len, hidden = dhs_top.shape
     d = params[0].w.shape[0] - hidden
@@ -166,7 +176,7 @@ def _bwd_recurrence_reference(
                 dh_total * tanh_c * o * (1.0 - o),
             ], dim=-1)
             dgates[l][:, t] = dg
-            dz = dg @ params[l].w.t()
+            dz = mm(dg, params[l].w.t(), compute_dtype)
             dh[l] = dz[:, d_in:]
             dc[l] = dc_total * f
             above = dz[:, :d_in]
@@ -191,14 +201,16 @@ def _layer_inputs(xs: torch.Tensor, h0: torch.Tensor, res: Residuals, l: int):
 def _dw_reference(
     params: Sequence[LSTMParams], xs: torch.Tensor, h0: torch.Tensor,
     res: Residuals, dgates: Sequence[torch.Tensor],
+    compute_dtype: torch.dtype = torch.float32,
 ) -> List[LSTMParams]:
-    """Plain version of the dW/db reduction kernel."""
+    """Plain version of the dW/db reduction kernel: dW in
+    ``compute_dtype``, db the sum of the unrounded dgates."""
     _no_tf32(xs, "lstm_dw plain version")
     out = []
     for l, p in enumerate(params):
         z = _layer_inputs(xs, h0, res, l).reshape(-1, p.w.shape[0])
         dg = dgates[l].reshape(-1, p.w.shape[1])
-        out.append(LSTMParams(w=z.t() @ dg, b=dg.sum(dim=0)))
+        out.append(LSTMParams(w=mm(z.t(), dg, compute_dtype), b=dg.sum(dim=0)))
     return out
 
 
@@ -244,6 +256,26 @@ def dw_splits(batch: int, t_len: int, hidden: int, d: int, n_sm: int) -> int:
     return max(1, min(want, batch * t_len // 64))
 
 
+def check_compute(compute_dtype: torch.dtype):
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
+
+
+def count_launch(fn, compute_dtype: torch.dtype):
+    """One launch of ``fn``'s kernel: its f32-compute instance counts in
+    ``fn.launches``, its bf16-compute instance in ``fn.launches_bf16``."""
+    if compute_dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
+def in_compute(ts: Sequence[torch.Tensor], compute_dtype: torch.dtype) -> List[torch.Tensor]:
+    """The weights as a kernel of the ``compute_dtype`` tier reads them:
+    f32 as they are, bf16 rounded once per call."""
+    return [t.to(compute_dtype).contiguous() for t in ts]
+
+
 def _check(params, xs, h0, c0, residual_dtype=torch.float32):
     if xs.dim() != 3:
         raise ValueError(f"xs must be (B, T, D), got {tuple(xs.shape)}")
@@ -263,7 +295,7 @@ def _check(params, xs, h0, c0, residual_dtype=torch.float32):
         if tuple(t.shape) != shape:
             raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
         if t.dtype != torch.float32:
-            raise TypeError(f"the f32 tier takes float32 tensors, got {t.dtype}")
+            raise TypeError(f"the kernels take float32 tensors, got {t.dtype}")
         if t.device != xs.device:
             raise ValueError(f"tensors on {t.device} and {xs.device}")
     if xs.device.type not in ("cpu", "cuda"):
@@ -297,11 +329,13 @@ def _raise_on(err: int, name: str):
 def lstm_fwd(
     params: Sequence[LSTMParams], xs: torch.Tensor, h0: torch.Tensor,
     c0: torch.Tensor, residual_dtype: torch.dtype = torch.float32,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> Residuals:
     """Forward recurrence → the residuals."""
     _check(params, xs, h0, c0, residual_dtype)
+    check_compute(compute_dtype)
     if xs.device.type == "cpu":
-        return _forward_reference(params, xs, h0, c0, residual_dtype)
+        return _forward_reference(params, xs, h0, c0, residual_dtype, compute_dtype)
     batch, t_len, d = xs.shape
     hidden, layers = h0.shape[-1], len(params)
     rows = kernel_rows(hidden, layers, d)
@@ -310,7 +344,7 @@ def lstm_fwd(
         [torch.empty((batch, t_len, hidden), device=xs.device, dtype=residual_dtype) for _ in params],
         [torch.empty((batch, t_len, 4 * hidden), device=xs.device, dtype=residual_dtype) for _ in params],
     )
-    ws, bs = [p.w for p in params], [p.b for p in params]
+    ws, bs = in_compute([p.w for p in params], compute_dtype), [p.b for p in params]
     _check_card([xs, h0, c0, *ws, *bs, *res.hs, *res.cs, *res.gs])
     lib = _library()
     with torch.cuda.device(xs.device):
@@ -318,15 +352,15 @@ def lstm_fwd(
             xs.data_ptr(), h0.data_ptr(), c0.data_ptr(), _ptrs(ws), _ptrs(bs),
             _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs),
             batch, t_len, d, hidden, layers, rows,
-            int(residual_dtype == torch.bfloat16),
+            int(residual_dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "lstm_fwd")
-    lstm_fwd.launches += 1
+    count_launch(lstm_fwd, compute_dtype)
     return res
 
 
-lstm_fwd.launches = 0
+lstm_fwd.launches = lstm_fwd.launches_bf16 = 0
 
 
 def _check_bwd(params, res, batch, t_len, d, hidden, f32s):
@@ -368,6 +402,7 @@ def _transposed(params: Sequence[LSTMParams], d: int) -> List[torch.Tensor]:
 def lstm_bwd(
     params: Sequence[LSTMParams], c0: torch.Tensor, res: Residuals,
     dhs_top: torch.Tensor, dhT: torch.Tensor, dcT: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward recurrence → (dgates per layer (B, T, 4H), dxs (B, T, D),
     dh0, dc0 (L, B, H)), all f32."""
@@ -378,17 +413,18 @@ def lstm_bwd(
         (dhs_top, (batch, t_len, hidden)), (dhT, (layers, batch, hidden)),
         (dcT, (layers, batch, hidden)), (c0, (layers, batch, hidden)),
     ])
+    check_compute(compute_dtype)
     rdt = res.hs[0].dtype
     if dhs_top.device.type == "cpu":
-        return _bwd_recurrence_reference(params, c0, res, dhs_top, dhT, dcT)
+        return _bwd_recurrence_reference(params, c0, res, dhs_top, dhT, dcT, compute_dtype)
     rows = kernel_rows(hidden, layers, d)
     dev = dhs_top.device
-    wt = _transposed(params, d)
+    wt = in_compute(_transposed(params, d), compute_dtype)
     dgates = [torch.empty((batch, t_len, 4 * hidden), device=dev) for _ in params]
     dxs = torch.empty((batch, t_len, d), device=dev)
     dh0 = torch.empty((layers, batch, hidden), device=dev)
     dc0 = torch.empty((layers, batch, hidden), device=dev)
-    ws = [p.w for p in params]
+    ws = in_compute([p.w for p in params], compute_dtype)
     _check_card([dhs_top, dhT, dcT, c0, *ws, *wt, *res.cs, *res.gs, *dgates, dxs, dh0, dc0])
     lib = _library()
     with torch.cuda.device(dev):
@@ -397,19 +433,20 @@ def lstm_bwd(
             _ptrs(ws), _ptrs(wt), _ptrs(res.cs), _ptrs(res.gs), _ptrs(dgates),
             dxs.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
             batch, t_len, d, hidden, layers, rows, int(rdt == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+            int(compute_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "lstm_bwd")
-    lstm_bwd.launches += 1
+    count_launch(lstm_bwd, compute_dtype)
     return dgates, dxs, dh0, dc0
 
 
-lstm_bwd.launches = 0
+lstm_bwd.launches = lstm_bwd.launches_bf16 = 0
 
 
 def lstm_dw(
     params: Sequence[LSTMParams], xs: torch.Tensor, h0: torch.Tensor,
     res: Residuals, dgates: Sequence[torch.Tensor],
+    compute_dtype: torch.dtype = torch.float32,
 ) -> List[LSTMParams]:
     """dW/db reduction → per layer ``LSTMParams(dW, db)``, f32."""
     batch, t_len, d = xs.shape
@@ -420,8 +457,9 @@ def lstm_dw(
     ])
     if len(dgates) != layers:
         raise ValueError(f"{len(dgates)} dgates for {layers} layers")
+    check_compute(compute_dtype)
     if xs.device.type == "cpu":
-        return _dw_reference(params, xs, h0, res, dgates)
+        return _dw_reference(params, xs, h0, res, dgates, compute_dtype)
     if batch * t_len >= 2**31:
         raise ValueError(f"B·T = {batch * t_len} rows do not fit the kernel's 32-bit row index")
     dev = xs.device
@@ -437,14 +475,14 @@ def lstm_dw(
             xs.data_ptr(), h0.data_ptr(), _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs),
             _ptrs(dgates), partial.data_ptr(), _ptrs(dws), _ptrs(dbs),
             batch, t_len, d, hidden, layers, splits, int(res.hs[0].dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+            int(compute_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "lstm_dw")
-    lstm_dw.launches += 1
+    count_launch(lstm_dw, compute_dtype)
     return [LSTMParams(w=w, b=b) for w, b in zip(dws, dbs)]
 
 
-lstm_dw.launches = 0
+lstm_dw.launches = lstm_dw.launches_bf16 = 0
 
 
 @functools.cache
@@ -453,9 +491,9 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("lstm_train")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
-    lib.lstm_fwd.argtypes = [vp, vp, vp, arr, arr, arr, arr, arr] + [i32] * 7 + [vp]
-    lib.lstm_bwd.argtypes = [vp, vp, vp, vp, arr, arr, arr, arr, arr, vp, vp, vp] + [i32] * 7 + [vp]
-    lib.lstm_dw.argtypes = [vp, vp, arr, arr, arr, arr, vp, arr, arr] + [i32] * 7 + [vp]
+    lib.lstm_fwd.argtypes = [vp, vp, vp, arr, arr, arr, arr, arr] + [i32] * 8 + [vp]
+    lib.lstm_bwd.argtypes = [vp, vp, vp, vp, arr, arr, arr, arr, arr, vp, vp, vp] + [i32] * 8 + [vp]
+    lib.lstm_dw.argtypes = [vp, vp, arr, arr, arr, arr, vp, arr, arr] + [i32] * 8 + [vp]
     for f in (lib.lstm_fwd, lib.lstm_bwd, lib.lstm_dw):
         f.restype = i32
     lib.lstm_train_error_string.argtypes = [i32]
@@ -470,10 +508,10 @@ def _library() -> ctypes.CDLL:
 
 class _LSTMSeqStates(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, residual_dtype, xs, h0, c0, *flat):
+    def forward(ctx, residual_dtype, compute_dtype, xs, h0, c0, *flat):
         params = [LSTMParams(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
-        res = lstm_fwd(params, xs, h0, c0, residual_dtype)
-        ctx.layers = len(params)
+        res = lstm_fwd(params, xs, h0, c0, residual_dtype, compute_dtype)
+        ctx.layers, ctx.compute_dtype = len(params), compute_dtype
         ctx.save_for_backward(xs, h0, c0, *flat, *res.hs, *res.cs, *res.gs)
         hT = torch.stack([h[:, -1] for h in res.hs]).float()
         cT = torch.stack([c[:, -1] for c in res.cs]).float()
@@ -488,11 +526,11 @@ class _LSTMSeqStates(torch.autograd.Function):
         res = Residuals(list(rest[:n]), list(rest[n: 2 * n]), list(rest[2 * n:]))
         dgates, dxs, dh0, dc0 = lstm_bwd(
             params, c0, res, dhs_top.float().contiguous(),
-            dhT.float().contiguous(), dcT.float().contiguous(),
+            dhT.float().contiguous(), dcT.float().contiguous(), ctx.compute_dtype,
         )
-        dparams = lstm_dw(params, xs, h0, res, dgates)
+        dparams = lstm_dw(params, xs, h0, res, dgates, ctx.compute_dtype)
         flat_grads = [g for p in dparams for g in (p.w, p.b)]
-        return (None, dxs, dh0, dc0, *flat_grads)
+        return (None, None, dxs, dh0, dc0, *flat_grads)
 
 
 def lstm_seq_states(
@@ -505,19 +543,13 @@ def lstm_seq_states(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stacked LSTM over a known sequence from initial states (L, B, H)
     → (hs_top (B, T, H), hT (L, B, H), cT (L, B, H)), f32; differentiable
-    in params, xs, h0 and c0 through the kernels' backward.
-
-    Only f32 compute is ported: ``compute_dtype=torch.bfloat16`` (the JAX
-    ``train_compute`` tier) raises."""
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"lstm_seq_states: only f32 compute is ported, got "
-            f"compute_dtype={compute_dtype} (ROADMAP.md Queue 2, the "
-            f"lstm_seq_states bf16-compute tier)"
-        )
+    in params, xs, h0 and c0 through the kernels' backward, which runs in
+    the forward's ``compute_dtype`` (f32, or bf16: the JAX
+    ``train_compute`` tier)."""
     _check(params, xs, h0, c0, residual_dtype)
+    check_compute(compute_dtype)
     flat = [t for p in params for t in (p.w, p.b)]
-    return _LSTMSeqStates.apply(residual_dtype, xs, h0, c0, *flat)
+    return _LSTMSeqStates.apply(residual_dtype, compute_dtype, xs, h0, c0, *flat)
 
 
 def lstm_seq(

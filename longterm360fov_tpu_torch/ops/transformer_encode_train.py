@@ -105,8 +105,8 @@ def _check(cfg, past_n, in_proj, leaves, compute_dtype=torch.float32):
     T <= 64."""
     if compute_dtype != torch.float32:
         raise NotImplementedError(
-            f"fused_encode_train: only the exact f32 tier is ported, got compute_dtype={compute_dtype} "
-            f"(ROADMAP.md, slice I-b: --train-compute bfloat16)"
+            f"fused_encode_train has the exact f32 tier only, got compute_dtype={compute_dtype}: the "
+            f"JAX training encoder has no bf16 tier (ROADMAP.md, slice I-b, divergences)"
         )
     if past_n.dim() != 3 or min(past_n.shape) < 1:
         raise ValueError(f"past_n must be a non-empty (B, T, D), got {tuple(past_n.shape)}")

@@ -79,6 +79,76 @@ def test_fused_serve_never_falls_back_on_card():
 # 1e-7 difference can cross a rounding boundary: one bf16 step, at most 2^-7 of the
 # value. Backward (fed the same residuals): 1e-4 of max|plain| per output,
 # since dW sums B·T terms in another order.
+#
+# The bf16-compute tiers of the training kernels (train --train-compute
+# bfloat16) run each check once more, in the bf16 compute type: against the
+# bf16 plain version near chip_smoke.py's readings (PERF.md): the forward
+# 1e-2 (plus the bf16 step on a value stored in bf16), the backward
+# recurrences 1e-2 of max|plain|, the reductions fed the same dgates 1e-4,
+# the lockstep decoder's 2e-3 ("ctx_sum": its loader rebuilds the context
+# with FMAs, the plain version with a rounding per product);
+# against the f32 plain version within JAX's contract for the tier
+# (tests/test_lstm_train.py: 0.05 on the forward, 6 % of max|g|); and each
+# output the tier rounds stands, in the mean, at least half as far from the
+# f32 plain version as the bf16 plain version does, so a kernel that does
+# not round fails (the largest gap of a value stored in bf16 is one bf16
+# step either way). Its launches count in ``launches_bf16``.
+
+BF = torch.bfloat16
+COMPUTE = [torch.float32, BF]
+LIMITS = {torch.float32: [{"fwd": 1e-5, "rec": 1e-4, "sum": 1e-4, "ctx_sum": 1e-4}],
+          BF: [{"fwd": 1e-2, "rec": 1e-2, "sum": 1e-4, "ctx_sum": 2e-3},
+               {"fwd": 0.05, "rec": 0.06, "sum": 0.06, "ctx_sum": 0.06}]}
+
+
+def _plains(cd, fn):
+    """``fn(compute_dtype)`` in ``cd``, and in bf16 also in f32."""
+    return [fn(cd)] if cd == torch.float32 else [fn(BF), fn(torch.float32)]
+
+
+def _mean_gap(a, b):
+    return (a.float() - b.float()).abs().mean().item()
+
+
+def _check(outs, refs, kind, cd, unrounded=0):
+    """A kernel's outputs against its plain versions (``_plains``) at
+    LIMITS[cd] (``kind``: "fwd", a backward recurrence "rec", a reduction
+    "sum" or the lockstep decoder's "ctx_sum"); in bf16 the floor on all
+    but the last ``unrounded`` outputs, which sum unrounded values (db,
+    dproj_b, dpwt)."""
+    for ref, limits in zip(refs, LIMITS[cd], strict=True):
+        for x, y in zip(outs, ref, strict=True):
+            assert x.shape == y.shape and torch.isfinite(x.float()).all()
+            diff = (x.float() - y.float()).abs()
+            if kind == "fwd":
+                assert (diff <= limits[kind] + (2.0 ** -7 * y.float().abs() if x.dtype == BF else 0.0)).all()
+            else:
+                assert diff.max().item() <= limits[kind] * y.float().abs().max().item()
+    if cd == BF:
+        n = len(outs) - unrounded
+        for x, p, f in zip(outs[:n], refs[0][:n], refs[1][:n]):
+            assert _mean_gap(x, f) >= 0.5 * _mean_gap(p, f), "the kernel does not round as the tier does"
+
+
+def _flat(out):
+    return [t for x in out for t in (x if isinstance(x, list) else [] if x is None else [x])]
+
+
+def _wb(ps):
+    return [p.w for p in ps] + [p.b for p in ps]
+
+
+def _fwd(res):
+    return res.hs + res.cs + res.gs
+
+
+def _counts(wrappers):
+    return [(f.launches, f.launches_bf16) for f in wrappers]
+
+
+def _one_more(before, cd):
+    """The counts after one launch of each wrapper in the compute type ``cd``."""
+    return [(n + (cd != BF), m + (cd == BF)) for n, m in before]
 
 
 def _lstm_case(batch, layers, seed, t=30, d=3, h=128):
@@ -100,30 +170,25 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
+@pytest.mark.parametrize("cd", COMPUTE)
 @pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layers", [1, 2, 3])
 @pytest.mark.parametrize("batch", [1, 257, 4099])
-def test_lstm_train_kernels_match_plain(batch, layers, rd):
+def test_lstm_train_kernels_match_plain(batch, layers, rd, cd):
     ps, (xs, h0, c0), up = _lstm_case(batch, layers, seed=layers)
-    before = (lstm_train.lstm_fwd.launches, lstm_train.lstm_bwd.launches, lstm_train.lstm_dw.launches)
-    res = lstm_train.lstm_fwd(ps, xs, h0, c0, rd)
-    ref = lstm_train._forward_reference(ps, xs, h0, c0, rd)
-    torch.cuda.synchronize()
-    for a, b in zip(res.hs + res.cs + res.gs, ref.hs + ref.cs + ref.gs):
-        assert a.dtype == rd and a.shape == b.shape
-        tol = 1e-5 if rd == torch.float32 else 1e-5 + 2.0 ** -7 * b.float().abs()
-        assert ((a.float() - b.float()).abs() <= tol).all()
-    dg, dxs, dh0, dc0 = lstm_train.lstm_bwd(ps, c0, res, *up)
-    dg_p, dxs_p, dh0_p, dc0_p = lstm_train._bwd_recurrence_reference(ps, c0, res, *up)
-    dps = lstm_train.lstm_dw(ps, xs, h0, res, dg_p)
-    dps_p = lstm_train._dw_reference(ps, xs, h0, res, dg_p)
-    torch.cuda.synchronize()
-    pairs = list(zip(dg, dg_p)) + [(dxs, dxs_p), (dh0, dh0_p), (dc0, dc0_p)]
-    pairs += [(a.w, b.w) for a, b in zip(dps, dps_p)] + [(a.b, b.b) for a, b in zip(dps, dps_p)]
-    for a, b in pairs:
-        assert torch.isfinite(a).all() and _rel(a, b) <= 1e-4
-    after = (lstm_train.lstm_fwd.launches, lstm_train.lstm_bwd.launches, lstm_train.lstm_dw.launches)
-    assert after == tuple(n + 1 for n in before)
+    wrappers = (lstm_train.lstm_fwd, lstm_train.lstm_bwd, lstm_train.lstm_dw)
+    before = _counts(wrappers)
+    res = lstm_train.lstm_fwd(ps, xs, h0, c0, rd, cd)
+    refs = _plains(cd, lambda c: lstm_train._forward_reference(ps, xs, h0, c0, rd, c))
+    assert all(x.dtype == rd for x in _fwd(res))
+    _check(_fwd(res), [_fwd(r) for r in refs], "fwd", cd)
+    bw = lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=cd)
+    bws = _plains(cd, lambda c: lstm_train._bwd_recurrence_reference(ps, c0, res, *up, c))
+    _check(_flat(bw), [_flat(b) for b in bws], "rec", cd)
+    dps = lstm_train.lstm_dw(ps, xs, h0, res, bws[0][0], cd)
+    _check(_wb(dps), _plains(cd, lambda c: _wb(lstm_train._dw_reference(ps, xs, h0, res, bws[0][0], c))),
+           "sum", cd, unrounded=layers)
+    assert _counts(wrappers) == _one_more(before, cd)
 
 
 def test_lstm_train_rows_are_independent():
@@ -315,7 +380,7 @@ def test_cell_and_decode_never_fall_back_on_card():
     x, h = _cuda(rng, (4, 3)), _cuda(rng, (4, 128))
     with pytest.raises(RuntimeError, match="no backward"):
         fused_lstm.fused_lstm_cell(p, x.requires_grad_(True), (h, h))
-    with pytest.raises(TypeError, match="slice I-b"):
+    with pytest.raises(TypeError, match="slice I-c"):
         fused_lstm.fused_lstm_cell(p, x.detach().bfloat16(), (h, h))
     with pytest.raises(ValueError, match="aligned"):
         fused_lstm.fused_lstm_cell(p, x.detach(), (h, torch.empty(4 * 128 + 1, device="cuda")[1:].view(4, 128)))
@@ -354,48 +419,43 @@ def _ss_fwd_args(ps, a):
     return (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], a["ctx"])
 
 
+def _ss_check(ps, a, layers, ctx_dim, rd, cd):
+    """The four ss_decode kernels in the compute type ``cd`` against their
+    plain versions, each fed as in chip_smoke.py (the backward the kernel's
+    residuals, the reductions the plain dgates and dy)."""
+    wrappers = (lstm_ss.ss_fwd, lstm_ss.ss_bwd, lstm_ss.ss_dw, lstm_ss.ss_dproj)
+    before = _counts(wrappers)
+    ys, res = lstm_ss.ss_fwd(*_ss_fwd_args(ps, a), rd, cd)
+    refs = _plains(cd, lambda c: lstm_ss._forward_reference(*_ss_fwd_args(ps, a), rd, c))
+    assert all(x.dtype == rd for x in _fwd(res))
+    _check([ys] + _fwd(res), [[y] + _fwd(r) for y, r in refs], "fwd", cd)
+    args = (ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], ctx_dim)
+    bw = lstm_ss.ss_bwd(*args, cd)
+    bws = _plains(cd, lambda c: lstm_ss._bwd_recurrence_reference(*args, compute_dtype=c))
+    assert (bw[6] is None) == (ctx_dim == 0)
+    _check(_flat(bw), [_flat(b) for b in bws], "rec", cd)
+    dw_in = (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["ctx"], ys, res, bws[0][0])
+    _check(_wb(lstm_ss.ss_dw(*dw_in, cd)), _plains(cd, lambda c: _wb(lstm_ss._dw_reference(*dw_in, c))), "sum",
+           cd, unrounded=layers)
+    _check(list(lstm_ss.ss_dproj(res.hs[-1], bws[0][1], cd)),
+           _plains(cd, lambda c: list(lstm_ss._dproj_reference(res.hs[-1], bws[0][1], c))), "sum", cd, unrounded=1)
+    assert _counts(wrappers) == _one_more(before, cd)
+
+
+@pytest.mark.parametrize("cd", COMPUTE)
 @pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layers,ctx_dim", [(1, 0), (2, 128), (3, 128), (2, 64)])  # C = 64: video-fusion
 @pytest.mark.parametrize("batch", [1, 257, 4099])
-def test_ss_kernels_match_plain(batch, layers, ctx_dim, rd):
+def test_ss_kernels_match_plain(batch, layers, ctx_dim, rd, cd):
     ps, a = _ss_case(batch, layers, ctx_dim, "bernoulli", seed=layers)
-    counts = lambda: tuple(f.launches for f in (lstm_ss.ss_fwd, lstm_ss.ss_bwd, lstm_ss.ss_dw, lstm_ss.ss_dproj))  # noqa: E731
-    before = counts()
-    ys, res = lstm_ss.ss_fwd(*_ss_fwd_args(ps, a), rd)
-    ys_p, res_p = lstm_ss._forward_reference(*_ss_fwd_args(ps, a), rd)
-    torch.cuda.synchronize()
-    assert (ys - ys_p).abs().max().item() <= 1e-5
-    for x, y in zip(res.hs + res.cs + res.gs, res_p.hs + res_p.cs + res_p.gs):
-        assert x.dtype == rd and x.shape == y.shape
-        tol = 1e-5 if rd == torch.float32 else 1e-5 + 2.0 ** -7 * y.float().abs()
-        assert ((x.float() - y.float()).abs() <= tol).all()
-    bw = lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], ctx_dim)
-    bw_p = lstm_ss._bwd_recurrence_reference(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], ctx_dim)
-    dps = lstm_ss.ss_dw(ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["ctx"], ys, res, bw_p[0])
-    dps_p = lstm_ss._dw_reference(ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["ctx"], ys, res, bw_p[0])
-    dproj = lstm_ss.ss_dproj(res.hs[-1], bw_p[1])
-    dproj_p = lstm_ss._dproj_reference(res.hs[-1], bw_p[1])
-    torch.cuda.synchronize()
-    pairs = list(zip(bw[0], bw_p[0])) + [(x, y) for x, y in zip(bw[1:], bw_p[1:]) if y is not None]
-    pairs += [(x.w, y.w) for x, y in zip(dps, dps_p)] + [(x.b, y.b) for x, y in zip(dps, dps_p)]
-    pairs += list(zip(dproj, dproj_p))
-    for x, y in pairs:
-        assert torch.isfinite(x).all() and _rel(x, y) <= 1e-4
-    assert (bw[6] is None) == (ctx_dim == 0)
-    assert counts() == tuple(n + 1 for n in before)
+    _ss_check(ps, a, layers, ctx_dim, rd, cd)
 
 
+@pytest.mark.parametrize("cd", COMPUTE)
 @pytest.mark.parametrize("coins", ["1", "0"])
-def test_ss_kernels_match_plain_at_coin_extremes(coins):
+def test_ss_kernels_match_plain_at_coin_extremes(coins, cd):
     ps, a = _ss_case(4096, 2, 128, coins, seed=5)
-    ys, res = lstm_ss.ss_fwd(*_ss_fwd_args(ps, a), torch.float32)
-    ys_p, _ = lstm_ss._forward_reference(*_ss_fwd_args(ps, a), torch.float32)
-    bw = lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
-    bw_p = lstm_ss._bwd_recurrence_reference(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
-    torch.cuda.synchronize()
-    assert (ys - ys_p).abs().max().item() <= 1e-5
-    for x, y in list(zip(bw[0], bw_p[0])) + list(zip(bw[1:], bw_p[1:])):
-        assert _rel(x, y) <= 1e-4 if y.abs().max() > 0 else not x.any()
+    _ss_check(ps, a, 2, 128, torch.float32, cd)
 
 
 def test_ss_backward_is_deterministic():
@@ -535,51 +595,62 @@ def _aligned_case(batch, layers, k, coins, seed, t=30, masked=True):
     return ps, a
 
 
-def _aligned_check(batch, layers, k, rd, coins, seed=0):
+def _aligned_check(batch, layers, k, rd, coins, seed=0, cd=torch.float32):
+    """The six aligned_ss_decode kernels in the compute type ``cd`` against
+    their plain versions, each fed the plain version's inputs from the
+    kernel before it, as in chip_smoke.py."""
     ps, a = _aligned_case(batch, layers, k, coins, seed)
     wrappers = (lstm_align.peer_fwd, lstm_align.dec_fwd, lstm_align.dec_bwd, lstm_align.peer_bwd,
                 lstm_align.dec_dw, lstm_align.peer_dw)
-    before = [f.launches for f in wrappers]
-    php, pcp, ctx = lstm_align.peer_fwd(a["peer"], a["pxs"], a["pwt"], rd)
-    php_p, pcp_p, ctx_p = lstm_align._peer_fwd_reference(a["peer"], a["pxs"], a["pwt"], rd)
-    args = (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], ctx_p)
-    ys, res = lstm_align.dec_fwd(*args, rd)
-    ys_p, res_p = lstm_ss._forward_reference(*args, rd)
-    torch.cuda.synchronize()
-    assert (ctx - ctx_p).abs().max().item() <= 1e-5 and (ys - ys_p).abs().max().item() <= 1e-5
-    for x, y in zip([php, pcp] + res.hs + res.cs + res.gs, [php_p, pcp_p] + res_p.hs + res_p.cs + res_p.gs):
-        assert x.dtype == rd and x.shape == y.shape
-        tol = 1e-5 if rd == torch.float32 else 1e-5 + 2.0 ** -7 * y.float().abs()
-        assert ((x.float() - y.float()).abs() <= tol).all()
-    bw = lstm_align.dec_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
-    bw_p = lstm_ss._bwd_recurrence_reference(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128,
-                                             step_ctx=True)
-    pb = lstm_align.peer_bwd(a["peer"], a["pxs"], a["pwt"], php, pcp, bw_p[6])
-    pb_p = lstm_align._peer_bwd_reference(a["peer"], a["pxs"], a["pwt"], php, pcp, bw_p[6])
-    dw_in = (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["pwt"], php, ys, res, bw_p[0])
-    dps, dps_p = lstm_align.dec_dw(*dw_in), lstm_align._dw_reference(*dw_in)
-    pdw = lstm_align.peer_dw(a["peer"], a["pxs"], php, pb_p[0])
-    pdw_p = lstm_align._peer_dw_reference(a["peer"], a["pxs"], php, pb_p[0])
-    torch.cuda.synchronize()
-    pairs = list(zip(bw[0], bw_p[0])) + list(zip(bw[1:], bw_p[1:])) + list(zip(pb, pb_p))
-    pairs += [(x.w, y.w) for x, y in zip(dps, dps_p)] + [(x.b, y.b) for x, y in zip(dps, dps_p)]
-    pairs += [(pdw.w, pdw_p.w), (pdw.b, pdw_p.b)]
-    for x, y in pairs:
-        assert x.shape == y.shape and torch.isfinite(x).all()
-        assert _rel(x, y) <= 1e-4 if y.abs().max() > 0 else not x.any()
-    assert [f.launches for f in wrappers] == [n + 1 for n in before]
+    before = _counts(wrappers)
+    php, pcp, ctx = lstm_align.peer_fwd(a["peer"], a["pxs"], a["pwt"], rd, cd)
+    prefs = _plains(cd, lambda c: list(lstm_align._peer_fwd_reference(a["peer"], a["pxs"], a["pwt"], rd, c)))
+    _check([php, pcp, ctx], prefs, "fwd", cd)
+    args = (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], prefs[0][2])
+    ys, res = lstm_align.dec_fwd(*args, rd, cd)
+    refs = _plains(cd, lambda c: lstm_ss._forward_reference(*args, rd, c))
+    assert all(x.dtype == rd for x in [php, pcp] + _fwd(res))
+    _check([ys] + _fwd(res), [[y] + _fwd(r) for y, r in refs], "fwd", cd)
+    bargs = (ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
+    bws = _plains(cd, lambda c: lstm_ss._bwd_recurrence_reference(*bargs, step_ctx=True, compute_dtype=c))
+    _check(_flat(lstm_align.dec_bwd(*bargs, cd)), [_flat(b) for b in bws], "rec", cd)
+    pargs = (a["peer"], a["pxs"], a["pwt"], php, pcp, bws[0][6])
+    pbs = _plains(cd, lambda c: list(lstm_align._peer_bwd_reference(*pargs, c)))
+    _check(list(lstm_align.peer_bwd(*pargs, cd)), pbs, "rec", cd, unrounded=1)
+    dw_in = (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["pwt"], php, ys, res, bws[0][0])
+    _check(_wb(lstm_align.dec_dw(*dw_in, cd)), _plains(cd, lambda c: _wb(lstm_align._dw_reference(*dw_in, c))),
+           "ctx_sum", cd, unrounded=layers)
+    pdw_in = (a["peer"], a["pxs"], php, pbs[0][0])
+    _check(_wb([lstm_align.peer_dw(*pdw_in, cd)]),
+           _plains(cd, lambda c: _wb([lstm_align._peer_dw_reference(*pdw_in, c)])), "sum", cd, unrounded=1)
+    assert _counts(wrappers) == _one_more(before, cd)
 
 
+@pytest.mark.parametrize("cd", COMPUTE)
 @pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layers,k", [(1, 3), (2, 7)])
 @pytest.mark.parametrize("batch", [1, 257, 4099])
-def test_aligned_kernels_match_plain(batch, layers, k, rd):
-    _aligned_check(batch, layers, k, rd, "bernoulli", seed=layers)
+def test_aligned_kernels_match_plain(batch, layers, k, rd, cd):
+    _aligned_check(batch, layers, k, rd, "bernoulli", seed=layers, cd=cd)
 
 
+@pytest.mark.parametrize("cd", COMPUTE)
 @pytest.mark.parametrize("coins", ["1", "0"])
-def test_aligned_kernels_match_plain_at_coin_extremes(coins):
-    _aligned_check(1000, 2, 7, torch.bfloat16, coins, seed=3)
+def test_aligned_kernels_match_plain_at_coin_extremes(coins, cd):
+    _aligned_check(1000, 2, 7, torch.bfloat16, coins, seed=3, cd=cd)
+
+
+def test_bf16_compute_backward_is_deterministic():
+    """Two runs of ss_decode's bf16-compute kernels give the same bits."""
+    ps, a = _ss_case(4096, 2, 128, "bernoulli", seed=6)
+    out = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for p in ps for t in p]
+        params = [LSTMParams(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
+        ys = lstm_ss.ss_decode(params, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"],
+                               (a["coins"], a["ctx"]), compute_dtype=BF)
+        out.append([ys] + list(torch.autograd.grad((ys * a["dys"]).sum(), leaves)))
+    assert all(torch.equal(x, y) for x, y in zip(*out))
 
 
 def test_aligned_ss_decode_autograd_matches_the_step_loop():

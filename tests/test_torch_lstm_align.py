@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from longterm360fov_tpu.models import cell as jax_cell
 from longterm360fov_tpu.models import cross_user as CU
 from longterm360fov_tpu.models import seq2seq as S
 from longterm360fov_tpu.models.cell import LSTMParams as JaxLSTMParams
@@ -27,6 +28,11 @@ from longterm360fov_tpu_torch.params import params_from_numpy
 
 FWD_TOL = 2e-5  # tests/test_lstm_align.py: the aligned forward vs the XLA path
 SERVE_TOL = 1e-5  # the lockstep serve tier vs JAX, normalized outputs
+# the bf16-compute tier: each forward output within a fifth of its JAX
+# bf16-vs-f32 gap of JAX's bf16 kernel, each gradient within a quarter, and
+# the port's bf16 at least half the gap from its own f32
+# (tests/test_torch_lstm_train.py says why)
+FWD_FRAC, GRAD_FRAC = 0.2, 0.25
 
 
 def _t(x):
@@ -138,6 +144,60 @@ def test_aligned_gradients_match_jax_bf16_residuals():
         assert np.abs(x.numpy() - y).max() <= 0.03 * max(np.abs(y).max(), 1e-3)
 
 
+@pytest.mark.parametrize("rd", ["float32", "bfloat16"])
+def test_aligned_bf16_compute_matches_jax(rd):
+    """compute_dtype=bfloat16 at stacked-ss-crossuser-10s's widths (H = C =
+    128, L = 2) with K = 3 peers and a fully masked row: the output and the
+    gradient of every input (decoder and peer W and b, proj, h0, c0, y0,
+    teacher, dpxs, dpwt), port plain bf16 against jax.grad through JAX's
+    bf16 kernels; bound in the module header."""
+    b, t, d, h, k, layers = 8, 7, 3, 128, 3, 2
+    rng = np.random.default_rng(70)
+    keys = jax.random.split(jax.random.PRNGKey(70), layers + 1)
+    jd = [jax_cell.init_lstm(keys[l], (d + h if l == 0 else h), h) for l in range(layers)]
+    jpeer = jax_cell.init_lstm(keys[layers], d, h)
+    m = (rng.random((b, k)) < 0.6).astype(np.float32)
+    m[0] = 0.0
+    ins = [rng.normal(size=(h, d)).astype(np.float32) * 0.2,
+           rng.normal(size=d).astype(np.float32) * 0.1,
+           rng.normal(size=(layers, b, h)).astype(np.float32) * 0.3,
+           rng.normal(size=(layers, b, h)).astype(np.float32) * 0.3,
+           rng.normal(size=(b, d)).astype(np.float32) * 0.3,
+           rng.normal(size=(t, b, d)).astype(np.float32) * 0.3,
+           rng.normal(size=(t, b, k * d)).astype(np.float32) * 0.5,
+           (m / np.maximum(m.sum(1, keepdims=True), 1.0)).astype(np.float32)]
+    coins = (rng.random((t, b, 1)) < 0.5).astype(np.float32)
+    dys = rng.normal(size=(b, t, d)).astype(np.float32)
+    dt = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+    jax_out, ours = {}, {}
+    for cd in dt:
+        def f(dp, pe, pw, pb, h0, c0, y0, te, px, pwt):
+            out = jax_align.aligned_ss_decode(dp, pw, pb, pe, h0, c0, y0, te, px, (_j(coins), pwt),
+                                              8, dt[rd][0], dt[cd][0])
+            return jnp.sum(out * _j(dys)), out
+
+        (_, jo), jg = jax.value_and_grad(f, argnums=tuple(range(10)), has_aux=True)(
+            jd, jpeer, *map(jnp.asarray, ins))
+        jax_out[cd] = [jo] + jax.tree.leaves(jg)
+        tl = [torch.tensor(np.asarray(x), requires_grad=True) for q in jd + [jpeer] for x in q]
+        tin = [torch.tensor(a, requires_grad=True) for a in ins]
+        td = [LSTMParams(tl[i], tl[i + 1]) for i in range(0, 2 * layers, 2)]
+        out = lstm_align.aligned_ss_decode(td, tin[0], tin[1], LSTMParams(tl[-2], tl[-1]),
+                                           *tin[2:7], (_t(coins), tin[7]), dt[rd][1], dt[cd][1])
+        (out * _t(dys)).sum().backward()
+        ours[cd] = [out.detach()] + [x.grad for x in tl + tin]
+    names = ["ys"] + [f"{n}{l}" for l in range(layers) for n in ("dW", "db")]
+    names += ["dWp", "dbp", "dproj_w", "dproj_b", "dh0", "dc0", "dy0", "dteacher", "dpxs", "dpwt"]
+    assert len(names) == len(ours["bfloat16"]) == len(jax_out["bfloat16"])
+    for i, name in enumerate(names):
+        jb, jf = np.asarray(jax_out["bfloat16"][i]), np.asarray(jax_out["float32"][i])
+        ob, of = ours["bfloat16"][i].numpy(), ours["float32"][i].numpy()
+        gap, err = float(np.abs(jb - jf).max()), float(np.abs(ob - jb).max())
+        frac = FWD_FRAC if i == 0 else GRAD_FRAC
+        assert err <= frac * gap, f"{name}: |port − JAX| {err:.3g} > {frac} × gap {gap:.3g}"
+        assert float(np.abs(ob - of).max()) >= 0.5 * gap, f"{name}: the port's bf16 does not round"
+
+
 def _pieces(layers, seed, rd=torch.float32):
     dec, peer, a = _kernel_inputs(layers, seed=seed)
     _, _, td, tpeer = _sides(dec, peer)
@@ -226,8 +286,8 @@ def test_aligned_wrappers_reject_what_the_kernels_do_not_take():
     t = {k: _t(v) for k, v in a.items()}
     args = (td, t["proj_w"], t["proj_b"], tpeer, t["h0"], t["c0"], t["y0"], t["teacher"], t["pxs"],
             (t["coins"], t["pwt"]))
-    with pytest.raises(NotImplementedError, match="bf16-compute"):
-        lstm_align.aligned_ss_decode(*args, compute_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="compute_dtype"):
+        lstm_align.aligned_ss_decode(*args, compute_dtype=torch.float16)
     with pytest.raises(ValueError, match="do not match"):
         lstm_align.aligned_ss_decode(*args[:8], t["pxs"][:, :, :6], args[9])
     with pytest.raises(TypeError, match="residual_dtype"):

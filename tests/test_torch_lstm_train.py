@@ -7,6 +7,15 @@ CPU tensors. Same weights (params_from_numpy), same numpy inputs.
 Tolerances are the JAX suite's own: forward 2e-5, gradients against the
 custom VJP 2e-4·scale + 1e-7, apply_fused_tf 3e-5 and 3e-4·scale with f32
 residuals and 2e-2·scale with bf16 residuals.
+
+The bf16-compute tier (``compute_dtype=bfloat16``, ``train --train-compute
+bfloat16``) is held to the gap it opens: at the presets' width H = 128, each
+forward output of the port's plain bf16 version stands within a fifth of
+max|JAX bf16 − JAX f32| of JAX's interpret-mode bf16 kernel, each gradient
+within a quarter of its own gap (one operand that rounds the other way
+after an f32 difference of an ulp moves a dW entry by a bf16 step of that
+term), and the port's bf16 differs from its own f32 by at least half the
+gap: a version that forgets to round fails both.
 """
 
 import dataclasses
@@ -151,12 +160,60 @@ def test_cpu_tensors_launch_no_kernel():
 def test_unported_options_raise():
     jp, a = _case(1, seed=0)
     args = (_torch_params(jp), *(torch.from_numpy(a[k]) for k in ("xs", "h0", "c0")))
-    with pytest.raises(NotImplementedError, match="bf16-compute"):
-        lt.lstm_seq_states(*args, torch.float32, torch.bfloat16)
+    with pytest.raises(TypeError, match="compute_dtype"):
+        lt.lstm_seq_states(*args, torch.float32, torch.float16)
     with pytest.raises(TypeError, match="residual_dtype"):
         lt.lstm_seq_states(*args, torch.float16)
     with pytest.raises(ValueError, match="hidden % 32"):
         lt.kernel_rows(48, 1, 3)
+
+
+FWD_FRAC, GRAD_FRAC = 0.2, 0.25  # of the JAX bf16-vs-f32 gap, per output
+HB, TB = 128, 8  # the bf16-compute cases: the presets' width, T = 8
+
+
+def bf16_parity(names, jax_bf, jax_f32, ours_bf, ours_f32, n_fwd):
+    """The bf16-compute bound (module docstring) on each named output: the
+    first ``n_fwd`` are forward outputs, the rest gradients."""
+    for i, name in enumerate(names):
+        jb, jf = np.asarray(jax_bf[i], np.float32), np.asarray(jax_f32[i], np.float32)
+        ob, of = np.asarray(ours_bf[i], np.float32), np.asarray(ours_f32[i], np.float32)
+        gap = float(np.abs(jb - jf).max())
+        err = float(np.abs(ob - jb).max())
+        frac = FWD_FRAC if i < n_fwd else GRAD_FRAC
+        assert err <= frac * gap, f"{name}: |port − JAX| {err:.3g} > {frac} × gap {gap:.3g}"
+        assert float(np.abs(ob - of).max()) >= 0.5 * gap, f"{name}: the port's bf16 does not round"
+
+
+@pytest.mark.parametrize("rd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layers", [1, 2])
+def test_lstm_seq_states_bf16_compute_matches_jax(layers, rd):
+    """compute_dtype=bfloat16: hs_top, hT, cT and the gradients dW, db, dxs,
+    dh0, dc0 (upstream on all three outputs) of the port's plain bf16
+    version against jax.grad through JAX's bf16 kernels, at H = 128."""
+    rng = np.random.default_rng(50 + layers)
+    keys = jax.random.split(jax.random.PRNGKey(50 + layers), layers)
+    jp = [jax_cell.init_lstm(keys[l], D if l == 0 else HB, HB) for l in range(layers)]
+    ins = [rng.normal(size=s).astype(np.float32) * 0.3
+           for s in ((B, TB, D), (layers, B, HB), (layers, B, HB))]
+    up = [rng.normal(size=s).astype(np.float32) for s in ((B, TB, HB), (layers, B, HB), (layers, B, HB))]
+    jax_out, ours = {}, {}
+    for cd in ("float32", "bfloat16"):
+        def f(p, x, h, c):
+            out = jax_lt.lstm_seq_states(p, x, h, c, B, RD[rd][0], RD[cd][0])
+            return sum(jnp.sum(o * u) for o, u in zip(out, up)), out
+
+        (_, jo), jg = jax.value_and_grad(f, argnums=(0, 1, 2, 3), has_aux=True)(
+            jp, *map(jnp.asarray, ins))
+        jax_out[cd] = list(jo) + [g for q in jg[0] for g in (q.w, q.b)] + list(jg[1:])
+        tp = _torch_params(jp, requires_grad=True)
+        tin = [torch.tensor(a, requires_grad=True) for a in ins]
+        out = lt.lstm_seq_states(tp, *tin, RD[rd][1], RD[cd][1])
+        sum((o * torch.from_numpy(u)).sum() for o, u in zip(out, up)).backward()
+        ours[cd] = [o.detach() for o in out] + [t.grad for q in tp for t in q] + [t.grad for t in tin]
+    names = ["hs_top", "hT", "cT"] + [f"{n}{l}" for l in range(layers) for n in ("dW", "db")]
+    bf16_parity(names + ["dxs", "dh0", "dc0"], jax_out["bfloat16"], jax_out["float32"],
+                ours["bfloat16"], ours["float32"], 3)
 
 
 def _seq2seq_case(layers, seed):
@@ -223,5 +280,5 @@ def test_apply_fused_tf_raises_on_unported_tiers():
     # the cross_user peer_align tier is not
     with pytest.raises(NotImplementedError, match="cross_user"):
         seq2seq.apply_fused_tf(tparams, tcfg, tp, tf, context=torch.zeros(8, tcfg.h_out, 4))
-    with pytest.raises(NotImplementedError, match="bf16-compute"):
-        seq2seq.apply_fused_tf(tparams, tcfg, tp, tf, compute_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="compute_dtype"):
+        seq2seq.apply_fused_tf(tparams, tcfg, tp, tf, compute_dtype=torch.float16)

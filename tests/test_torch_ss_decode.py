@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from longterm360fov_tpu.models import cell as jax_cell
 from longterm360fov_tpu.models import seq2seq as S
 from longterm360fov_tpu.models.cell import LSTMParams as JaxLSTMParams
 from longterm360fov_tpu.ops import fused_lstm as jax_fused
@@ -25,6 +26,11 @@ from longterm360fov_tpu_torch.params import params_from_numpy
 
 FWD_TOL = 3e-5  # tests/test_lstm_ss.py: ss forward vs the XLA scan
 ENC_TOL = 2e-5  # tests/test_cross_user.py: serve_fused vs the scan
+# the bf16-compute tier: each forward output within a fifth of its JAX
+# bf16-vs-f32 gap of JAX's bf16 kernel, each gradient within a quarter, and
+# the port's bf16 at least half the gap from its own f32
+# (tests/test_torch_lstm_train.py says why)
+FWD_FRAC, GRAD_FRAC = 0.2, 0.25
 
 
 def _setup(layers, ctx_dim, seed=0, b=8, h_in=5, h_out=6, hidden=32):
@@ -204,6 +210,60 @@ def test_ss_kernels_plain_versions_match_jax_kernels(layers, ctx_dim, rd):
         np.testing.assert_allclose(ours.numpy(), ref, atol=1e-5 * max(np.abs(ref).max(), 1e-6))
 
 
+def _bf16_parity(names, jax_bf, jax_f32, ours_bf, ours_f32, n_fwd):
+    for i, name in enumerate(names):
+        jb, jf = np.asarray(jax_bf[i], np.float32), np.asarray(jax_f32[i], np.float32)
+        ob, of = np.asarray(ours_bf[i], np.float32), np.asarray(ours_f32[i], np.float32)
+        gap, err = float(np.abs(jb - jf).max()), float(np.abs(ob - jb).max())
+        frac = FWD_FRAC if i < n_fwd else GRAD_FRAC
+        assert err <= frac * gap, f"{name}: |port − JAX| {err:.3g} > {frac} × gap {gap:.3g}"
+        assert float(np.abs(ob - of).max()) >= 0.5 * gap, f"{name}: the port's bf16 does not round"
+
+
+@pytest.mark.parametrize("rd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layers,ctx_dim", [(1, 64), (2, 128)])
+def test_ss_decode_bf16_compute_matches_jax(layers, ctx_dim, rd):
+    """compute_dtype=bfloat16 at H = 128 and the contexts of video-fusion
+    (C = 64) and stacked-ss-crossuser (C = 128): ys and the gradients of
+    every decoder W and b, proj_w, proj_b, h0, c0, y0, the teacher and the
+    context, port plain bf16 against jax.grad through JAX's bf16 kernels,
+    the same coins; bound in the module header."""
+    b, t, d, hidden = 8, 7, 3, 128
+    rng = np.random.default_rng(60 + layers)
+    keys = jax.random.split(jax.random.PRNGKey(60 + layers), layers)
+    jps = [jax_cell.init_lstm(keys[l], (d + ctx_dim if l == 0 else hidden), hidden)
+           for l in range(layers)]
+    ins = [rng.normal(size=(hidden, d)).astype(np.float32) * 0.2,
+           rng.normal(size=d).astype(np.float32) * 0.1,
+           rng.normal(size=(layers, b, hidden)).astype(np.float32) * 0.3,
+           rng.normal(size=(layers, b, hidden)).astype(np.float32) * 0.3,
+           rng.normal(size=(b, d)).astype(np.float32) * 0.3,
+           rng.normal(size=(t, b, d)).astype(np.float32) * 0.3,
+           rng.normal(size=(b, ctx_dim)).astype(np.float32) * 0.5]
+    coins = (rng.random((t, b, 1)) < 0.5).astype(np.float32)
+    dys = rng.normal(size=(b, t, d)).astype(np.float32)
+    dt = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+    jax_out, ours = {}, {}
+    for cd in dt:
+        def f(p, pw, pb, h0, c0, y0, te, cx):
+            ys = jax_ss.ss_decode(p, pw, pb, h0, c0, y0, te, (_j(coins), cx), 8, dt[rd][0], dt[cd][0])
+            return jnp.sum(ys * _j(dys)), ys
+
+        (_, jys), jg = jax.value_and_grad(f, argnums=tuple(range(8)), has_aux=True)(
+            jps, *map(jnp.asarray, ins))
+        jax_out[cd] = [jys] + [g for q in jg[0] for g in (q.w, q.b)] + list(jg[1:])
+        tps = [LSTMParams(torch.tensor(np.asarray(q.w), requires_grad=True),
+                          torch.tensor(np.asarray(q.b), requires_grad=True)) for q in jps]
+        tin = [torch.tensor(a, requires_grad=True) for a in ins]
+        ys = lstm_ss.ss_decode(tps, *tin[:6], (_t(coins), tin[6]), dt[rd][1], dt[cd][1])
+        (ys * _t(dys)).sum().backward()
+        ours[cd] = [ys.detach()] + [x.grad for q in tps for x in q] + [x.grad for x in tin]
+    names = ["ys"] + [f"{n}{l}" for l in range(layers) for n in ("dW", "db")]
+    names += ["dproj_w", "dproj_b", "dh0", "dc0", "dy0", "dteacher", "dctx"]
+    _bf16_parity(names, jax_out["bfloat16"], jax_out["float32"], ours["bfloat16"],
+                 ours["float32"], 1)
+
+
 @pytest.mark.parametrize("layers", [1, 2])
 def test_fused_encode_matches_jax(layers):
     rng = np.random.default_rng(layers)
@@ -249,8 +309,8 @@ def test_ss_wrappers_reject_what_the_kernels_do_not_take():
     tps = [LSTMParams(_t(w), _t(b)) for w, b in ps]
     t = {k: _t(v) for k, v in a.items()}
     args = [tps, t["proj_w"], t["proj_b"], t["h0"], t["c0"], t["y0"], t["teacher"]]
-    with pytest.raises(NotImplementedError, match="bf16-compute"):
-        lstm_ss.ss_decode(*args, (t["coins"], t["ctx"]), compute_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="compute_dtype"):
+        lstm_ss.ss_decode(*args, (t["coins"], t["ctx"]), compute_dtype=torch.float16)
     with pytest.raises(TypeError, match="residual_dtype"):
         lstm_ss.ss_fwd(*args, t["coins"], t["ctx"], torch.float16)
     with pytest.raises(ValueError):  # the decoder's W takes [x, ctx]: no context given

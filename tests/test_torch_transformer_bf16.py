@@ -35,7 +35,7 @@ from longterm360fov_tpu.ops.transformer_decode import fused_ar_decode as jax_fus
 from longterm360fov_tpu.ops.transformer_encode import fused_encode_tokens as jax_fused_encode_tokens
 from longterm360fov_tpu_torch.models import transformer
 from longterm360fov_tpu_torch.models.seq2seq import Seq2SeqConfig
-from longterm360fov_tpu_torch.ops import transformer_decode, transformer_encode
+from longterm360fov_tpu_torch.ops import transformer_decode, transformer_encode, transformer_encode_train
 from longterm360fov_tpu_torch.params import params_from_numpy
 
 BF16_TOL = 2e-2
@@ -166,8 +166,10 @@ def test_serve_fused_default_is_f32_on_cpu_tensors():
 
 
 def test_serving_tiers_and_refusals():
-    """Only f32 and bf16 are tiers; the training encoder keeps its bf16 raise
-    (slice I-b); the bf16 plain decode stays f32-valued."""
+    """Only f32 and bf16 are tiers; the training hooks ignore a bf16
+    compute_dtype (``train --train-compute bfloat16``), as the JAX
+    transformer, which has no fused training hook, does, and the training
+    encoder keeps its bf16 raise; the bf16 plain decode stays f32-valued."""
     tcfg, tp, x, *_ = _serve_case()
     enc = transformer._encode(tp, tcfg, x).detach()
     for call in (lambda: transformer.serve_fused(tp, tcfg, x, compute_dtype=torch.float16),
@@ -175,8 +177,11 @@ def test_serving_tiers_and_refusals():
                  lambda: transformer_decode.fused_ar_decode(tp, tcfg, enc, x[:, -1], compute_dtype=torch.float16)):
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             call()
+    fut = torch.zeros(6, 7, 3)
+    assert torch.equal(transformer.apply_fused_tf(tp, tcfg, x, fut, compute_dtype=BF16),
+                       transformer.apply_fused_tf(tp, tcfg, x, fut))
     with pytest.raises(NotImplementedError, match="slice I-b"):
-        transformer.apply_fused_tf(tp, tcfg, x, torch.zeros(6, 7, 3), compute_dtype=BF16)
+        transformer_encode_train.fused_encode_train(tp, tcfg, x, compute_dtype=BF16)
     with torch.no_grad():
         out = transformer_decode.fused_ar_decode_bf16(tp, tcfg, enc, x[:, -1].contiguous())
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
