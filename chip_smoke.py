@@ -49,7 +49,12 @@ one line each or more:
    least half as far from the f32 one as the bf16 plain version): B = 4099,
    1 and 2 layers, both residual types, ``ss_decode`` at C = 0, 128 and 64
    with the three coin kinds, the aligned kernels at K = 3 and 7 with a row
-   whose every peer is masked;
+   whose every peer is masked; the bf16 tiers of the serving kernels
+   (``compute_dtype=bfloat16``, the cell on bf16 tensors) the same way,
+   ``fused_serve`` at 30 + 30 steps without and with a static context
+   (C = 128 and 64), ``fused_encode`` on the crossuser peer rows, the
+   lockstep tier at 100 + 100 steps (K = 7 and 3), the cell at D_in = 3 and
+   128;
 4. the ``seq2seq-tf-30`` serving main path: ``serving.make_serve_fn`` behind
    a ``DynamicBatcher`` answers 64 concurrent single-viewer requests and one
    bulk request; every answer equals the direct batched call and the numpy
@@ -150,12 +155,27 @@ one line each or more:
    (G = 8); grouped against per-row calls timed at both batches, profiles
    of both at 4096; the f32 shared tier alone against plain at B = 4096,
    and the per-row kernel alone at the TPU streamed tier's shape (window
-   0); ``transformer-30`` grouped at B = 16384;
+   0) and, in bf16, at the preset's window 8 beside its f32 twin;
+   ``transformer-30`` grouped at B = 16384;
 16. the ``transformer-10s`` training main path: ``train.train_loop`` at
    B = 1024 (plain encoder at T = 100, as in JAX), evaluation through the
    per-row decode kernel, checkpoints, a bit-equal resume; the step's speed
    and profile; the plain encoder against ``nn.TransformerEncoder`` at
-   T = 100.
+   T = 100;
+17. the bf16 tiers end to end: ``serve_fused(compute_dtype=bfloat16)``
+   behind ``predict_xyz`` for ``seq2seq-tf-30`` (B = 16384 and 262,144),
+   ``stacked-ss-crossuser`` (``fused_encode`` and the static tier; 16384
+   and 65,536) and ``stacked-ss-crossuser-10s`` (the lockstep tier; 16384
+   and 65,536), each against the f32 call on the same weights in turns
+   (traj/s, and the deviation in great-circle degrees); ``cell="pallas"``
+   on a bf16 ``seq2seq-tf-30`` at 16384 (60 cell launches a call, against
+   ``cell="xla"`` and f32); then ``train --bf16`` (``model_param_dtype=
+   "bfloat16"``) on ``seq2seq-tf-30``, ``stacked-ss-crossuser``,
+   ``stacked-ss-crossuser-10s``, ``video-fusion`` and ``transformer-30``
+   at B = 4096 (:func:`drive_bf16_params`: the LSTM cells on the f32
+   kernels with f32 gradients and moments, the transformer on plain bf16
+   autograd); then each bf16 serving tier alone against its f32 twin, its
+   plain version and cuDNN's or cuBLAS's bf16 call.
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -171,6 +191,7 @@ and last the contract line
 
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -182,7 +203,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from longterm360fov_tpu_torch import checkpoint, cli, data, infer, oracle, serving, traces, train, windows
+from longterm360fov_tpu_torch import checkpoint, cli, data, geometry, infer, oracle, serving, traces, train, windows
 from longterm360fov_tpu_torch.config import get_preset
 from longterm360fov_tpu_torch.features import equirect
 from longterm360fov_tpu_torch.models import cross_user, fusion, get_family, seq2seq, transformer
@@ -190,7 +211,7 @@ from longterm360fov_tpu_torch.models.cell import LSTMParams, lstm_cell
 from longterm360fov_tpu_torch.ops import (_build, conv_resize, fused_lstm, lstm_align, lstm_ss, lstm_train,
                                           transformer_decode, transformer_encode)
 from longterm360fov_tpu_torch.ops import transformer_encode_train as encode_train
-from longterm360fov_tpu_torch.params import params_from_numpy, tree_leaves, tree_unflatten
+from longterm360fov_tpu_torch.params import params_from_numpy, tree_leaves, tree_unflatten, walk
 
 PRESET = "seq2seq-tf-30"
 CU_PRESET = "stacked-ss-crossuser"
@@ -254,6 +275,27 @@ HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
 # the cell kernel against lstm_cell: one step, exact f32 FMAs in another order
 # (tests/test_fused_lstm.py's bound for the TPU cell)
 CELL_TOL = 1e-5
+# the serving kernels' kinds of output, absolute like "fwd": the serve
+# kernels' normalized predictions ("serve"), the encoder's top-layer h
+# ("encode"), the peer context ("ctx"), the cell's h and c ("cell"). In f32
+# against the plain version within KERNEL_TOL, ENC_TOL and CELL_TOL. Their
+# bf16 tiers (rows 1b, 4b, 2b; compute_dtype=bfloat16, a --bf16 model's
+# cell): against the f32 plain version within JAX's bound for the tier (0.05
+# on the normalized outputs, tests/test_fused_lstm.py:112-126), at least
+# BF16C_FLOOR of the bf16 plain version's mean gap from the f32 one (read
+# 0.9999-1.0001), and against the bf16 plain version near this script's
+# readings on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md PR 10). Both round
+# the same operands and sum in f32 in another order, so a rounding may flip
+# and carry through a row's later steps: the predictions read up to 7.3e-4
+# in phase 3 and 1.9e-3 at B = 65,536 (mean about 1e-6), against 4.7e-4 to
+# 6.5e-3 between the bf16 and f32 plain versions: 1e-2; the peer context
+# 5.2e-5 and 1.2e-4: 1e-3; the encoder's h, which is the rounded h, one bf16
+# step of it, 9.8e-4: 1e-2; the cell's h and c, one step with no carry,
+# stored in bf16 (within adds a bf16 step): CELL_TOL
+ABSOLUTE = ("fwd", "serve", "encode", "ctx", "cell")
+F32_LIMIT.update(serve=KERNEL_TOL, encode=ENC_TOL, ctx=ENC_TOL, cell=CELL_TOL)
+BF16C_CONTRACT.update(serve=0.05, encode=0.05, ctx=0.05, cell=0.05)
+BF16C_TIGHT.update(serve=1e-2, encode=1e-2, ctx=1e-3, cell=CELL_TOL)
 # the transformer's bf16 tiers against their bf16 plain versions: both round
 # the same operands to bf16 and sum in f32 in another order, so a rounding may
 # flip, which moves an activation by 2^-8 of itself; past the first flip a
@@ -292,6 +334,9 @@ TF10_GROUPED, TF10_GROUPED_F32 = "serve transformer-10s grouped", "serve transfo
 TF10_TRAIN = "train transformer-10s"
 S2S_TRAIN_BF16, CU_TRAIN_BF16 = "train seq2seq-tf-30 bf16", "train stacked-ss-crossuser bf16"
 CU10_TRAIN_BF16, FU_TRAIN_BF16 = "train stacked-ss-crossuser-10s bf16", "train video-fusion bf16"
+# the bf16 serving tiers' paths (compute_dtype=bfloat16; the cell on a --bf16 model)
+S2S_SERVE_BF16, S2S_CELL_BF16 = "serve seq2seq-tf-30 bf16", "serve seq2seq-tf-30 cell=pallas bf16"
+CU_SERVE_BF16, CU10_SERVE_BF16 = "serve stacked-ss-crossuser bf16", "serve stacked-ss-crossuser-10s bf16"
 # the transformer kernels vs plain: 3e-5 absolute on the encoder memory and
 # the normalized outputs, the JAX suite's bound for both TPU kernels
 # (tests/test_transformer_encode.py:35, tests/test_transformer_decode.py:43)
@@ -338,9 +383,9 @@ ALIGN_FWD, ALIGN_BWD = "longterm360fov_tpu/ops/lstm_align.py:244", "longterm360f
 
 
 class Bf16Count:
-    """The bf16-compute instance of a training wrapper's kernel, counted as
-    :func:`drive` counts a wrapper: its ``launches`` are the wrapper's
-    ``launches_bf16``."""
+    """The bf16 instance of a wrapper's kernel (a bf16-compute tier, or the
+    cell on bf16 tensors), counted as :func:`drive` counts a wrapper: its
+    ``launches`` are the wrapper's ``launches_bf16``."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -417,6 +462,19 @@ KERNELS = [
     ("aligned_peer_bwd_bf16", ALIGN_SRC, ALIGN_BWD, Bf16Count(lstm_align.peer_bwd), CU10_TRAIN_BF16),
     ("aligned_dec_dw_bf16", ALIGN_SRC, ALIGN_BWD, Bf16Count(lstm_align.dec_dw), CU10_TRAIN_BF16),
     ("aligned_peer_dw_bf16", ALIGN_SRC, ALIGN_BWD, Bf16Count(lstm_align.peer_dw), CU10_TRAIN_BF16),
+    # the bf16 tiers of rows 1b, 4b and 2b (compute_dtype=bfloat16; the cell on a --bf16 model)
+    ("fused_serve_bf16", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:503", Bf16Count(fused_lstm.fused_serve),
+     S2S_SERVE_BF16),
+    ("fused_serve_ctx_bf16", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:503",
+     Bf16Count(fused_lstm.fused_serve), CU_SERVE_BF16),
+    ("fused_encode_bf16", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:741", Bf16Count(fused_lstm.fused_encode),
+     CU_SERVE_BF16),
+    ("fused_serve_peers_bf16", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:503",
+     Bf16Count(fused_lstm.fused_serve_peers), CU10_SERVE_BF16),
+    ("peer_context_bf16", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:503", Bf16Count(fused_lstm.peer_context),
+     CU10_SERVE_BF16),
+    ("fused_lstm_cell_bf16", SERVE_SRC, "longterm360fov_tpu/ops/fused_lstm.py:72",
+     Bf16Count(fused_lstm.fused_lstm_cell), S2S_CELL_BF16),
 ]
 BF, F32 = torch.bfloat16, torch.float32
 WRAPPERS = {name: wrapper for name, _, _, wrapper, _ in KERNELS}
@@ -543,61 +601,54 @@ def family_fns(fam, **kw):
 # --------------------------------------------------------------- phase 3: kernels vs plain
 
 
-def check_serve(dev, batch, layers, ctx_dim, seed, t=30):
-    """fused_serve (with a static context when ctx_dim > 0) against
-    fused_serve_reference on the same inputs → max abs error."""
+def check_serve(dev, batch, layers, ctx_dim, seed, t=30, cd=F32):
+    """fused_serve (with a static context when ctx_dim > 0) in the compute
+    type ``cd`` against fused_serve_reference on the same inputs
+    (:func:`check_outputs`, kind "serve")."""
     rng = np.random.default_rng(seed)
     enc, dec = stack(rng, dev, 3, layers), stack(rng, dev, 3 + ctx_dim, layers)
     pw, pb = randn(rng, dev, (128, 3), 0.1), randn(rng, dev, (3,), 0.1)
     past = unit_rows(rng, dev, (batch, t))
     past_n = windows.normalize_window(past)[0].contiguous()
     ctx = randn(rng, dev, (batch, ctx_dim)) if ctx_dim else None
-    out = fused_lstm.fused_serve(enc, dec, pw, pb, past_n, t, context=ctx)
+    args = (enc, dec, pw, pb, past_n, t)
+    out = fused_lstm.fused_serve(*args, context=ctx, compute_dtype=cd)
     torch.cuda.synchronize()
-    ref = fused_lstm.fused_serve_reference(enc, dec, pw, pb, past_n, t, ctx)
-    if out.shape != (batch, t, 3) or not torch.isfinite(out).all():
-        raise AssertionError(f"fused_serve output {tuple(out.shape)} not finite or misshapen")
-    err = (out - ref).abs().max().item()
-    if not err <= KERNEL_TOL:
-        raise AssertionError(f"fused_serve disagrees with its plain version (B={batch}, L={layers}, "
-                             f"C={ctx_dim}): {err:.3e}")
-    note_err("fused_serve_ctx" if ctx_dim else "fused_serve", err)
-    return err
+    return check_outputs("fused_serve_ctx" if ctx_dim else "fused_serve", [out],
+                         plains(cd, lambda c: [fused_lstm.fused_serve_reference(*args, ctx, compute_dtype=c)]),
+                         f"B={batch}, L={layers}, C={ctx_dim}", "serve", cd)
 
 
-def check_encode(dev, batch, layers, seed, t=30):
-    """fused_encode against fused_encode_reference → max abs error."""
+def check_encode(dev, batch, layers, seed, t=30, cd=F32):
+    """fused_encode in the compute type ``cd`` against
+    fused_encode_reference (:func:`check_outputs`, kind "encode")."""
     rng = np.random.default_rng(seed)
     ps = stack(rng, dev, 3, layers)
     xs = randn(rng, dev, (batch, t, 3), 0.3)
-    out = fused_lstm.fused_encode(ps, xs)
+    out = fused_lstm.fused_encode(ps, xs, compute_dtype=cd)
     torch.cuda.synchronize()
-    ref = fused_lstm.fused_encode_reference(ps, xs)
-    if out.shape != (batch, 128) or not torch.isfinite(out).all():
-        raise AssertionError(f"fused_encode output {tuple(out.shape)} not finite or misshapen")
-    err = (out - ref).abs().max().item()
-    if not err <= ENC_TOL:
-        raise AssertionError(f"fused_encode disagrees with its plain version (B={batch}, L={layers}): {err:.3e}")
-    note_err("fused_encode", err)
-    return err
+    return check_outputs("fused_encode", [out], plains(cd, lambda c: [fused_lstm.fused_encode_reference(ps, xs, c)]),
+                         f"B={batch}, L={layers}", "encode", cd)
 
 
-def check_cell(dev, batch, d_in, seed):
-    """fused_lstm_cell against lstm_cell on the same inputs → max abs error
-    over h and c."""
+def check_cell(dev, batch, d_in, seed, cd=F32):
+    """fused_lstm_cell against lstm_cell on the same inputs, every tensor
+    in ``cd``: in bf16 (a --bf16 model's cell) against ``lstm_cell`` on the
+    bf16 tensors, its plain version, and on their f32 widening
+    (:func:`check_outputs`, kind "cell", over h and c)."""
     rng = np.random.default_rng(seed)
     (p,) = stack(rng, dev, d_in, 1)
-    x, h, c = randn(rng, dev, (batch, d_in)), randn(rng, dev, (batch, 128), 0.5), randn(rng, dev, (batch, 128), 0.5)
+    p = LSTMParams(p.w.to(cd), p.b.to(cd))
+    x, h, c = (randn(rng, dev, shape, scale).to(cd)
+               for shape, scale in (((batch, d_in), 1.0), ((batch, 128), 0.5), ((batch, 128), 0.5)))
     got = fused_lstm.fused_lstm_cell(p, x, (h, c))
     torch.cuda.synchronize()
-    want = lstm_cell(p, x, (h, c))
-    if any(g.shape != (batch, 128) or not torch.isfinite(g).all() for g in got):
-        raise AssertionError("fused_lstm_cell output not finite or misshapen")
-    err = max((g - w).abs().max().item() for g, w in zip(got, want))
-    if not err <= CELL_TOL:
-        raise AssertionError(f"fused_lstm_cell disagrees with lstm_cell (B={batch}, D_in={d_in}): {err:.3e}")
-    note_err("fused_lstm_cell", err)
-    return err
+    if any(g.dtype != cd for g in got):
+        raise AssertionError(f"fused_lstm_cell wrote {[g.dtype for g in got]} on {cd} inputs")
+
+    def plain(c_):
+        return list(lstm_cell(LSTMParams(*(t.to(c_) for t in p)), x.to(c_), (h.to(c_), c.to(c_))))
+    return check_outputs("fused_lstm_cell", list(got), plains(cd, plain), f"B={batch}, D_in={d_in}", "cell", cd)
 
 
 def check_decode(dev, batch, layers, ctx_dim, seed, t=30):
@@ -623,12 +674,12 @@ def check_decode(dev, batch, layers, ctx_dim, seed, t=30):
 
 
 def within(a, b, kind, limit):
-    """``a`` within ``limit`` of ``b``: absolute on a forward output (plus
-    one bf16 step, 2^-7 of the value, where ``a`` is stored in bf16: an f32
-    difference of 1e-7 may round either way), relative to max|b| on a
-    gradient."""
+    """``a`` within ``limit`` of ``b``: absolute on a forward output (an
+    ABSOLUTE kind; plus one bf16 step, 2^-7 of the value, where ``a`` is
+    stored in bf16: an f32 difference of 1e-7 may round either way),
+    relative to max|b| on a gradient."""
     diff = (a.float() - b.float()).abs()
-    if kind == "fwd":
+    if kind in ABSOLUTE:
         return bool((diff <= limit + (2.0 ** -7 * b.float().abs() if a.dtype == BF else 0.0)).all())
     return diff.max().item() <= limit * b.float().abs().max().item()
 
@@ -636,7 +687,7 @@ def within(a, b, kind, limit):
 def gap(a, b, kind):
     """The largest gap of ``a`` from ``b`` in its limit's unit (within)."""
     diff = (a.float() - b.float()).abs().max().item()
-    return diff if kind == "fwd" else diff / (b.float().abs().max().item() or 1.0)
+    return diff if kind in ABSOLUTE else diff / (b.float().abs().max().item() or 1.0)
 
 
 def mean_gap(a, b):
@@ -645,8 +696,9 @@ def mean_gap(a, b):
 
 def check_outputs(name, outs, refs, what, kind, cd=F32, unrounded=0):
     """A kernel's outputs ``outs`` against ``refs[0]``, its plain version's
-    in its compute type ``cd``, on the same inputs; ``kind`` is "fwd", "rec"
-    "sum" or "ctx_sum" (F32_LIMIT). In f32 within F32_LIMIT → the largest absolute
+    in its compute type ``cd``, on the same inputs; ``kind`` is "fwd", "rec",
+    "sum" or "ctx_sum", or a serving kernel's "serve", "encode", "ctx" or
+    "cell" (F32_LIMIT). In f32 within F32_LIMIT → the largest absolute
     gap. In bf16 (BF16C_*) within BF16C_TIGHT of ``refs[0]`` and
     BF16C_CONTRACT of ``refs[1]``, the f32 plain version's, and each output
     but the last ``unrounded`` (sums of unrounded values: db, dproj_b, dpwt)
@@ -799,30 +851,31 @@ def peer_inputs(rng, dev, past_n, k, t):
     return pxs, w
 
 
-def check_peer_serve(dev, batch, layers, k, seed, t=100):
+def check_peer_serve(dev, batch, layers, k, seed, t=100, cd=F32):
     """The lockstep tier (peer_context, then the serve kernel with the
-    per-step context) against fused_serve_reference with the same peers →
-    max abs error of each kernel."""
+    per-step context) in the compute type ``cd`` against its plain versions
+    with the same peers (:func:`check_outputs`: peer_context kind "encode",
+    the tier's output "serve") → {kernel: its reading}."""
     rng = np.random.default_rng(seed)
     enc, dec, peer = stack(rng, dev, 3, layers), stack(rng, dev, 3 + 128, layers), stack(rng, dev, 3, 1)[0]
     pw, pb = randn(rng, dev, (128, 3), 0.1), randn(rng, dev, (3,), 0.1)
     past_n = windows.normalize_window(unit_rows(rng, dev, (batch, t)))[0].contiguous()
     pxs, w = peer_inputs(rng, dev, past_n, k, t)
-    ctx = fused_lstm.peer_context(peer, pxs, w)
-    ctx_p = fused_lstm.peer_context_reference(peer, pxs, w)
+    ctx = fused_lstm.peer_context(peer, pxs, w, compute_dtype=cd)
     args = (enc, dec, pw, pb, past_n, t)
-    out = fused_lstm.fused_serve(*args, peer_params=peer, peer_xs=pxs, peer_w=w)
+    kw = dict(peer_params=peer, peer_xs=pxs, peer_w=w)
+    out = fused_lstm.fused_serve(*args, compute_dtype=cd, **kw)
     torch.cuda.synchronize()
-    ref = fused_lstm.fused_serve_reference(*args, peer_params=peer, peer_xs=pxs, peer_w=w)
-    errs = {"peer_context": (ctx - ctx_p).abs().max().item(), "fused_serve_peers": (out - ref).abs().max().item()}
     what = f"B={batch}, L={layers}, K={k}"
-    if out.shape != (batch, t, 3) or not torch.isfinite(out).all() or ctx[0].any():
-        raise AssertionError(f"lockstep tier output misshapen, not finite or a masked row not zero ({what})")
-    if not (errs["peer_context"] <= ENC_TOL and errs["fused_serve_peers"] <= KERNEL_TOL):
-        raise AssertionError(f"the lockstep tier disagrees with its plain version ({what}): {errs}")
-    for name, err in errs.items():
-        note_err(name, err)
-    return errs
+    if out.shape != (batch, t, 3) or ctx[0].any():
+        raise AssertionError(f"lockstep tier output misshapen or a masked row not zero ({what})")
+    return {"peer_context": check_outputs(
+                "peer_context", [ctx], plains(cd, lambda c: [fused_lstm.peer_context_reference(peer, pxs, w, c)]),
+                what, "ctx", cd),
+            "fused_serve_peers": check_outputs(
+                "fused_serve_peers", [out],
+                plains(cd, lambda c: [fused_lstm.fused_serve_reference(*args, compute_dtype=c, **kw)]), what,
+                "serve", cd)}
 
 
 def aligned_case(dev, batch, layers, k, coins, seed, t=100):
@@ -993,6 +1046,23 @@ def check_all_kernels(dev):
             for l in (1, 2) for c in (0, 128)}
     print(f"fused_decode vs plain, hidden 128, 30 steps: max_abs_err {json.dumps(errs)} (tolerance {KERNEL_TOL})",
           flush=True)
+    errs = {}
+    for b, l, c in ((4099, 1, 0), (16384, 1, 0), (4099, 2, 128), (4099, 2, 64)):
+        errs[f"fused_serve B={b} L={l} C={c}"] = check_serve(dev, b, l, c, seed=l, cd=BF)
+    for b, l in ((4 * 4099, 1), (4099, 2)):
+        errs[f"fused_encode B={b} L={l}"] = check_encode(dev, b, l, seed=l, cd=BF)
+    for b, l, k in ((4099, 2, 7), (4099, 1, 3)):
+        for name, r in check_peer_serve(dev, b, l, k, seed=l + k, cd=BF).items():
+            errs[f"{name} B={b} L={l} K={k}"] = r
+    for b, d in ((16384, 3), (16383, 128)):
+        errs[f"fused_lstm_cell B={b} D_in={d}"] = check_cell(dev, b, d, seed=b + d, cd=BF)
+    kinds = ("serve", "encode", "ctx", "cell")
+    print(f"bf16 tiers of fused_serve (30+30 steps; static context C=128 and 64; the lockstep tier 100+100, C=128, "
+          f"a row with every peer masked), fused_encode (T=30; the crossuser peer rows, 4·B) and fused_lstm_cell "
+          f"(bf16 tensors), hidden 128, the largest gap to their bf16 and f32 plain versions (absolute) and the "
+          f"least floor ratio: {json.dumps(errs)} (limits: bf16 "
+          f"{json.dumps({k: BF16C_TIGHT[k] for k in kinds})}, f32 {json.dumps({k: BF16C_CONTRACT[k] for k in kinds})},"
+          f" one bf16 step more on a value stored in bf16; floor {BF16C_FLOOR})", flush=True)
     errs = {f"B={b} T={t} L={l}": check_encode_train(dev, b, t, l, seed=i, repeat=i == 0)
             for i, (b, t, l) in enumerate(((TRAIN_B, 30, 2), (4099, 30, 2), (4099, 13, 2), (1001, 64, 1)))}
     print(f"fused_encode_train kernels vs plain, hidden 128 (forward and stash vs plain {TF_TOL}; every gradient "
@@ -1071,17 +1141,17 @@ def serve_bench(preset, batches, smi):
     print(f"serve-bench {preset} (traj/s, with tile mask, CUDA events, {smi}): {json.dumps(out)}", flush=True)
 
 
-def serve_call(cfg, params, dev, batch, tier=None):
+def serve_call(cfg, params, dev, batch, tier=None, family=transformer):
     """One serve-bench call (normalize, kernels, denormalize, tile mask) on
     random unit-vector pasts and peer futures, as ``cli.serve_bench`` draws
-    them; with ``tier``, the transformer's serving in that compute dtype."""
+    them; with ``tier``, ``family``'s serving in that compute dtype."""
     m, rng = cfg.model, np.random.default_rng(0)
     x = {"past": unit_rows(rng, dev, (batch, m.h_in)),
          "other_future": unit_rows(rng, dev, (batch, cfg.n_other_users, m.h_out))}
     if tier is None:
         serve = infer.make_predict_fn(params, cfg, device=dev, with_tiles=True, impl="fused")
         return lambda: serve(x)
-    fam = tier_family(tier)
+    fam = tier_family(tier, family)
 
     @torch.inference_mode()
     def call():
@@ -1090,14 +1160,15 @@ def serve_call(cfg, params, dev, batch, tier=None):
     return call
 
 
-def tier_family(tier):
-    """The transformer family with ``serve_fused``'s compute dtype pinned to
-    ``tier``: the serving entry points (``make_serve_fn``,
-    ``make_grouped_serve_fn``, ``predict_xyz``) call the family's
-    ``serve_fused`` with no dtype, which resolves by device (bf16 on the
-    card)."""
-    fam = types.SimpleNamespace(**{k: getattr(transformer, k) for k in ("init", "apply", "batch_extras")})
-    fam.serve_fused = functools.partial(transformer.serve_fused, compute_dtype=tier)
+def tier_family(tier, family=transformer):
+    """``family`` with ``serve_fused``'s compute dtype pinned to ``tier``:
+    the serving entry points (``make_serve_fn``, ``make_grouped_serve_fn``,
+    ``predict_xyz``) call the family's ``serve_fused`` with no dtype, which
+    is f32 for the LSTM families and resolves by device for the transformer
+    (bf16 on the card)."""
+    fam = types.SimpleNamespace(**{k: getattr(family, k) for k in ("init", "apply", "batch_extras")
+                                   if hasattr(family, k)})
+    fam.serve_fused = functools.partial(family.serve_fused, compute_dtype=tier)
     return fam
 
 
@@ -1106,35 +1177,44 @@ def serve_flop(batch, t_in, t_out, enc_ins, dec_ins, hidden, d):
             + 2 * batch * t_out * hidden * d)
 
 
-def time_serve_kernel(name, dev, params, cfg, batch, iters, ctx_dim, smi, keep=True):
-    """One serve kernel alone against its plain version at a main-path batch:
-    checked on these inputs first, then timed in turns; ``keep``: its numbers
-    go to the kernels line. No single PyTorch call computes an
-    autoregressive decode with feedback: no library time."""
+def tier_reads(params, cd):
+    """A stack's weights as the ``cd`` tier's kernels read them: W (and
+    proj_w) in ``cd``, biases f32."""
+    return [t.to(cd) if t.dim() == 2 else t.float() for t in params]
+
+
+def time_serve_kernel(name, dev, params, cfg, batch, iters, ctx_dim, smi, keep=True, cd=F32):
+    """One serve kernel alone in the compute type ``cd`` against its plain
+    version at a main-path batch: checked on these inputs first
+    (:func:`check_outputs`), then timed in turns (the bf16 tier beside its
+    f32 twin); ``keep``: its numbers go to the kernels line. No single
+    PyTorch call computes an autoregressive decode with feedback: no library
+    time."""
     rng = np.random.default_rng(1)
     x_n = windows.normalize_window(unit_rows(rng, dev, (batch, cfg.model.h_in)))[0]
     x_n = x_n.contiguous()
     ctx = randn(rng, dev, (batch, ctx_dim)) if ctx_dim else None
     args = (params["encoder"], params["decoder"], params["proj"]["w"], params["proj"]["b"], x_n, cfg.model.h_out)
-    out = fused_lstm.fused_serve(*args, context=ctx)
-    ref = fused_lstm.fused_serve_reference(*args, ctx)
-    err = (out - ref).abs().max().item()
-    if out.shape != ref.shape or not torch.isfinite(out).all() or not err <= KERNEL_TOL:
-        raise AssertionError(f"{name} at B={batch} disagrees with its plain version: {err:.3e}")
-    note_err(name, err)
-    ms = in_turns({"plain": lambda: fused_lstm.fused_serve_reference(*args, ctx),
-                   "kernel": lambda: fused_lstm.fused_serve(*args, context=ctx)},
-                  {"plain": max(1, iters // 3), "kernel": iters})
+    out = fused_lstm.fused_serve(*args, context=ctx, compute_dtype=cd)
+    err = check_outputs(name, [out],
+                        plains(cd, lambda c: [fused_lstm.fused_serve_reference(*args, ctx, compute_dtype=c)]),
+                        f"B={batch}", "serve", cd)
+    fns = {"plain": lambda: fused_lstm.fused_serve_reference(*args, ctx, compute_dtype=cd),
+           "kernel": lambda: fused_lstm.fused_serve(*args, context=ctx, compute_dtype=cd)}
+    if cd == BF:
+        fns["f32_kernel"] = lambda: fused_lstm.fused_serve(*args, context=ctx)
+    ms = in_turns(fns, {"plain": max(1, iters // 3), "kernel": iters, "f32_kernel": iters})
     ps = params["encoder"] + params["decoder"]
     m = cfg.model
     flop = serve_flop(batch, m.h_in, m.h_out, [m.d] + [m.hidden] * (m.layers - 1),
                       [m.d + ctx_dim] + [m.hidden] * (m.layers - 1), m.hidden, m.d)
-    reads = [x_n, ctx, params["proj"]["w"], params["proj"]["b"]] + [t for p in ps for t in p]
-    b_ms, b_by = bound(flop, reads, [out])
+    reads = [x_n, ctx] + tier_reads([params["proj"]["w"], params["proj"]["b"]] + [t for p in ps for t in p], cd)
+    peak = F32_FLOPS if cd == F32 else BF16_FLOPS
+    b_ms, b_by = bound(flop, reads, [out], peak)
     if keep:
-        record(name, ms, flop, reads, [out])
-    print(f"{name} alone (B={batch}, L={m.layers}, C={ctx_dim}; ms, CUDA events, {smi}): {json.dumps(ms)}; "
-          f"bound {b_ms:.3f} ms by {b_by}; max_abs_err vs plain {err:.3e} (tolerance {KERNEL_TOL})", flush=True)
+        record(name + ("_bf16" if cd == BF else ""), ms, flop, reads, [out], peak)
+    print(f"{name} alone (B={batch}, L={m.layers}, C={ctx_dim}, {str(cd)[6:]}; ms, CUDA events, {smi}): "
+          f"{json.dumps(ms)}; bound {b_ms:.3f} ms by {b_by}; vs plain {json.dumps(err)}", flush=True)
 
 
 # --------------------------------------------------------------- phase 4b: the cell and decode kernels
@@ -1235,29 +1315,7 @@ def time_cell_paths(dev, params, smi):
         print(f"{S2S_CELL} / {S2S_DECODE}: serve call at B={batch} (ms, CUDA events, {smi}): {json.dumps(ms)}, "
               f"traj/s {json.dumps({k: batch * 1e3 / v for k, v in ms.items()})}", flush=True)
     for d_in, keep in ((3, True), (128, False)):
-        batch = 16384
-        (p,) = stack(rng, dev, d_in, 1)
-        x, h, c = randn(rng, dev, (batch, d_in)), randn(rng, dev, (batch, 128), 0.5), randn(rng, dev, (batch, 128), 0.5)
-        w_ih, w_hh = p.w[:d_in].t().contiguous(), p.w[d_in:].t().contiguous()
-        b_hh = torch.zeros_like(p.b)
-        lib = torch.lstm_cell(x, [h, c], w_ih, w_hh, p.b, b_hh)
-        got = fused_lstm.fused_lstm_cell(p, x, (h, c))
-        err = max((g - w).abs().max().item() for g, w in zip(got, lstm_cell(p, x, (h, c))))
-        lib_err = max((g - w).abs().max().item() for g, w in zip(got, lib))
-        if not err <= CELL_TOL:
-            raise AssertionError(f"fused_lstm_cell at B={batch}, D_in={d_in} disagrees with lstm_cell: {err:.3e}")
-        note_err("fused_lstm_cell", err)
-        ms = in_turns({"plain": lambda: lstm_cell(p, x, (h, c)), "kernel": lambda: fused_lstm.fused_lstm_cell(p, x, (h, c)),
-                       "library": lambda: torch.lstm_cell(x, [h, c], w_ih, w_hh, p.b, b_hh)},
-                      {"plain": 20, "kernel": 20, "library": 20})
-        flop = stack_flop(batch, 1, [d_in], 128)
-        reads, writes = [x, h, c, p.w, p.b], list(got)
-        b_ms, b_by = bound(flop, reads, writes)
-        if keep:
-            record("fused_lstm_cell", ms, flop, reads, writes)
-        print(f"fused_lstm_cell alone (B={batch}, D_in={d_in}, H=128; ms, CUDA events, {smi}): {json.dumps(ms)}; "
-              f"bound {b_ms:.4f} ms by {b_by}; max_abs_err vs plain {err:.3e} (tolerance {CELL_TOL}), vs "
-              f"torch.lstm_cell {lib_err:.3e}", flush=True)
+        time_cell_kernel(dev, smi, d_in, keep)
     batch, t_out = 262144, 30
     dec = stack(rng, dev, 3, 1)
     pw, pb = randn(rng, dev, (128, 3), 0.1), randn(rng, dev, (3,), 0.1)
@@ -1278,6 +1336,44 @@ def time_cell_paths(dev, params, smi):
     print(f"fused_decode alone (B={batch}, L=1, {t_out} steps; ms, CUDA events, {smi}): {json.dumps(ms)}; bound "
           f"{t['bound_ms']:.3f} ms by {t['bound_by']}; max_abs_err vs plain {err:.3e} (tolerance {KERNEL_TOL}); "
           f"library: none (AR decode with feedback)", flush=True)
+
+
+def time_cell_kernel(dev, smi, d_in, keep, cd=F32, batch=16384):
+    """The cell kernel alone on ``cd`` tensors (bf16: a --bf16 model's)
+    against lstm_cell on the same tensors (its plain version; in bf16 beside
+    the f32 kernel on their widening) and torch.lstm_cell (W split into w_ih
+    and w_hh: the library yardstick, which the port never calls; in bf16
+    cuBLAS rounds the gates to bf16 before the cell update, another
+    function), in turns at the main path's shape; ``keep``: its numbers go
+    to the kernels line."""
+    rng = np.random.default_rng(12 + d_in)
+    (p,) = stack(rng, dev, d_in, 1)
+    x, h, c = randn(rng, dev, (batch, d_in)), randn(rng, dev, (batch, 128), 0.5), randn(rng, dev, (batch, 128), 0.5)
+    p, x, h, c = LSTMParams(p.w.to(cd), p.b.to(cd)), x.to(cd), h.to(cd), c.to(cd)
+    w_ih, w_hh = p.w[:d_in].t().contiguous(), p.w[d_in:].t().contiguous()
+    b_hh = torch.zeros_like(p.b)
+    got = fused_lstm.fused_lstm_cell(p, x, (h, c))
+    lib_err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, torch.lstm_cell(x, [h, c], w_ih, w_hh, p.b, b_hh)))
+
+    def plain(c_):
+        return list(lstm_cell(LSTMParams(*(t.to(c_) for t in p)), x.to(c_), (h.to(c_), c.to(c_))))
+    err = check_outputs("fused_lstm_cell", list(got), plains(cd, plain), f"B={batch}, D_in={d_in}", "cell", cd)
+    fns = {"plain": lambda: lstm_cell(p, x, (h, c)), "kernel": lambda: fused_lstm.fused_lstm_cell(p, x, (h, c)),
+           "library": lambda: torch.lstm_cell(x, [h, c], w_ih, w_hh, p.b, b_hh)}
+    if cd == BF:
+        p32, x32, h32, c32 = LSTMParams(p.w.float(), p.b.float()), x.float(), h.float(), c.float()
+        fns["f32_kernel"] = lambda: fused_lstm.fused_lstm_cell(p32, x32, (h32, c32))
+    ms = in_turns(fns, {"plain": 20, "kernel": 20, "library": 20, "f32_kernel": 20})
+    flop = stack_flop(batch, 1, [d_in], 128)
+    reads, writes = [x, h, c, p.w, p.b], list(got)
+    peak = F32_FLOPS if cd == F32 else BF16_FLOPS
+    b_ms, b_by = bound(flop, reads, writes, peak)
+    name = "fused_lstm_cell" + ("_bf16" if cd == BF else "")
+    if keep:
+        record(name, ms, flop, reads, writes, peak)
+    print(f"{name} alone (B={batch}, D_in={d_in}, H=128; ms, CUDA events, {smi}): {json.dumps(ms)}; "
+          f"bound {b_ms:.4f} ms by {b_by}; vs plain {json.dumps(err)}, vs torch.lstm_cell {lib_err:.3e}", flush=True)
 
 
 # --------------------------------------------------------------- training paths
@@ -1450,31 +1546,35 @@ def drive_bf16_training(cfg, path, dev, also, smi, steps=6, rows=512, windows_=N
     return launches
 
 
-def bf16_step_check(cfg, state, train_d, path, rows):
-    """One step's loss and gradients under ``train_compute="bfloat16"`` on
-    ``rows`` windows at a mid-anneal teacher_prob, the same coins (drawn
-    from numpy and swapped in for the generator's draw on both sides): the
-    bf16 kernels on the card against the CPU port's bf16 plain versions,
-    and against the f32 step on the card: loss relative, gradients of
-    max|g| per leaf, the first within BF16C_TIGHT, the second within
-    BF16C_CONTRACT, and the card's gap to the f32 step at least BF16C_FLOOR
-    of the CPU port's."""
+def bf16_step_check(cfg, state, train_d, path, rows, f32=None, floors=("loss", "grads")):
+    """One step's loss and gradients under ``train_compute="bfloat16"`` (or
+    of a --bf16 model) on ``rows`` windows at a mid-anneal teacher_prob, the
+    same coins and transformer noise (drawn from numpy and swapped in for
+    the generator's draws on both sides): the bf16 kernels on the card against the CPU port's bf16
+    plain versions, and against the f32 step on the card (``f32``: its
+    (cfg, params), by default ``train_compute="float32"`` on the same
+    params): loss relative, gradients of max|g| per leaf, the first within
+    BF16C_TIGHT, the second within BF16C_CONTRACT, and the card's gap to the
+    f32 step at least BF16C_FLOOR of the CPU port's on ``floors``. The
+    card's gradients have the CPU port's dtypes, leaf by leaf."""
     fam = get_family(cfg.model_family)
     batch = next(train.batch_iterator(train_d, rows, seed=4))
     tp = train.teacher_prob_at(cfg, cfg.steps // 2)
     coins = torch.from_numpy((np.random.default_rng(19).random((cfg.model.h_out, rows, 1)) < tp)
                              .astype(np.float32))
-    draw = seq2seq.draw_coins
+    noise = torch.from_numpy(np.random.default_rng(20).normal(size=(rows, cfg.model.h_out, 3)).astype(np.float32))
+    draw, draw_noise = seq2seq.draw_coins, transformer.draw_noise
     seq2seq.draw_coins = lambda gen, p, t, b: coins.to(gen.device)
+    transformer.draw_noise = lambda gen, shape: noise.to(gen.device)
     try:
         cpu = tree_unflatten(state.params, [p.cpu() for p in tree_leaves(state.params)])
         res = {}
-        for where, c, params in (("card", cfg, state.params), ("cpu", cfg, cpu),
-                                 ("card_f32", cfg.replace(train_compute="float32"), state.params)):
+        f32_cfg, f32_params = f32 or (cfg.replace(train_compute="float32"), state.params)
+        for where, c, params in (("card", cfg, state.params), ("cpu", cfg, cpu), ("card_f32", f32_cfg, f32_params)):
             grad_fn = train.make_grad_fn(c, fam.apply, gc_metric=False, **family_fns(fam))
             res[where] = grad_fn(params, batch, torch.Generator(device=tree_leaves(params)[0].device), tp)
     finally:
-        seq2seq.draw_coins = draw
+        seq2seq.draw_coins, transformer.draw_noise = draw, draw_noise
 
     def gaps(x, y):
         (l_x, _), g_x = res[x]
@@ -1483,6 +1583,8 @@ def bf16_step_check(cfg, state, train_d, path, rows):
                 "grads": max((a.cpu() - b.cpu()).abs().max().item() / (b.abs().max().item() or 1.0)
                              for a, b in zip(tree_leaves(g_x), tree_leaves(g_y)))}
 
+    if [g.dtype for g in tree_leaves(res["card"][1])] != [g.dtype for g in tree_leaves(res["cpu"][1])]:
+        raise AssertionError(f"{path}: the card's gradient dtypes differ from the CPU port's")
     out = {"cpu": gaps("card", "cpu"), "card_f32": gaps("card", "card_f32"), "cpu_to_f32": gaps("cpu", "card_f32")}
     print(f"{path}: one step (B={rows}, teacher_prob {tp:.3f}, the same coins), the bf16 kernels' step on the "
           f"card vs the CPU port's bf16 plain step and vs the f32 step on the card, and the CPU port's vs the f32 "
@@ -1491,8 +1593,9 @@ def bf16_step_check(cfg, state, train_d, path, rows):
           f"{BF16C_CONTRACT['loss']}, gradients {BF16C_CONTRACT['step']}; floor {BF16C_FLOOR} of the CPU "
           f"port's gap to f32)", flush=True)
     for key, lim in (("loss", "loss"), ("grads", "step")):
+        floor = BF16C_FLOOR * out["cpu_to_f32"][key] if key in floors else 0.0
         if not (out["cpu"][key] <= BF16C_TIGHT[lim] and out["card_f32"][key] <= BF16C_CONTRACT[lim]
-                and out["card_f32"][key] >= BF16C_FLOOR * out["cpu_to_f32"][key]):
+                and out["card_f32"][key] >= floor):
             raise AssertionError(f"{path}: the bf16 step's {key} through the kernels differs from its references")
 
 
@@ -1525,14 +1628,14 @@ def profile_device(label, fn, iters, smi):
           f"{len(spans)} device events; ms per call by kernel {json.dumps(top)}", flush=True)
 
 
-def cudnn_lstm(ps, in0, dev, training):
-    """torch.nn.LSTM (cuDNN) with the same weights: weight_ih = W[:in]ᵀ,
+def cudnn_lstm(ps, in0, dev, training, dtype=torch.float32):
+    """torch.nn.LSTM (cuDNN) in ``dtype`` with the same weights: weight_ih = W[:in]ᵀ,
     weight_hh = W[in:]ᵀ, bias_ih = b, bias_hh = 0; the gate order i, f, g, o
     is the same. ``training`` keeps what the backward needs (cuDNN's reserve
     space: about 80 GB at 262,144 rows, so inference runs without). A
     yardstick only: the port never calls it."""
     hidden = ps[0].w.shape[1] // 4
-    net = torch.nn.LSTM(in0, hidden, num_layers=len(ps), batch_first=True).to(dev)
+    net = torch.nn.LSTM(in0, hidden, num_layers=len(ps), batch_first=True).to(device=dev, dtype=dtype)
     with torch.no_grad():
         for l, p in enumerate(ps):
             i = in0 if l == 0 else hidden
@@ -1683,37 +1786,41 @@ def drive_cu_serving(cfg, dev, params_np, path, n_single, n_bulk):
     return params, launches
 
 
-def time_encode_kernel(dev, rows, smi, with_library):
-    """fused_encode alone at the serving path's peer rows (B·K, one layer,
-    as stacked-ss-crossuser's peer encoder), checked first, against its
-    plain version and, ``with_library``, cuDNN nn.LSTM returning h_n (TF32
-    off; at 262,144 rows cuDNN asks for more workspace than the card has).
-    The last call's numbers go to the kernels line."""
+def time_encode_kernel(dev, rows, smi, with_library, cd=F32):
+    """fused_encode alone in the compute type ``cd`` at the serving path's
+    peer rows (B·K, one layer, as stacked-ss-crossuser's peer encoder),
+    checked first, against its plain version (and, in bf16, its f32 twin)
+    and, ``with_library``, cuDNN nn.LSTM returning h_n in ``cd`` (TF32 off;
+    in bf16 cuDNN rounds c and the gates too, another function; at 262,144
+    rows cuDNN asks for more workspace than the card has). The last call's
+    numbers go to the kernels line."""
     rng = np.random.default_rng(2)
     ps = stack(rng, dev, 3, 1)
     xs = unit_rows(rng, dev, (rows, 30))
-    out = fused_lstm.fused_encode(ps, xs)
-    err = (out - fused_lstm.fused_encode_reference(ps, xs)).abs().max().item()
-    if not err <= ENC_TOL:
-        raise AssertionError(f"fused_encode at {rows} rows disagrees with its plain version: {err:.3e}")
-    note_err("fused_encode", err)
-    fns = {"plain": lambda: fused_lstm.fused_encode_reference(ps, xs),
-           "kernel": lambda: fused_lstm.fused_encode(ps, xs)}
+    out = fused_lstm.fused_encode(ps, xs, compute_dtype=cd)
+    err = check_outputs("fused_encode", [out], plains(cd, lambda c: [fused_lstm.fused_encode_reference(ps, xs, c)]),
+                        f"{rows} rows", "encode", cd)
+    fns = {"plain": lambda: fused_lstm.fused_encode_reference(ps, xs, cd),
+           "kernel": lambda: fused_lstm.fused_encode(ps, xs, compute_dtype=cd)}
+    if cd == BF:
+        fns["f32_kernel"] = lambda: fused_lstm.fused_encode(ps, xs)
     note = ""
     if with_library:
-        net = cudnn_lstm(ps, 3, dev, training=False)
+        net, xs_lib = cudnn_lstm(ps, 3, dev, training=False, dtype=cd), xs.to(cd)
 
         def library():
             with torch.no_grad():
-                return net(xs)[1][0][-1]
+                return net(xs_lib)[1][0][-1]
 
         fns["library"] = library
-        note = f", vs cuDNN {(out - library()).abs().max().item():.3e}"
-    ms = in_turns(fns, {"plain": 2, "kernel": 5, "library": 5})
-    record("fused_encode", ms, stack_flop(rows, 30, [3], 128), [xs, ps[0].w, ps[0].b], [out])
-    print(f"fused_encode alone ({rows} rows, L=1, T=30; ms, CUDA events, library cuDNN nn.LSTM, {smi}): "
-          f"{json.dumps(ms)}; bound {TIMES['fused_encode']['bound_ms']:.3f} ms by "
-          f"{TIMES['fused_encode']['bound_by']}; max_abs_err vs plain {err:.3e}{note}", flush=True)
+        note = f", vs cuDNN in {str(cd)[6:]} {(out - library().float()).abs().max().item():.3e}"
+    ms = in_turns(fns, {"plain": 2, "kernel": 5, "library": 5, "f32_kernel": 5})
+    name = "fused_encode" + ("_bf16" if cd == BF else "")
+    record(name, ms, stack_flop(rows, 30, [3], 128), [xs] + tier_reads(ps[0], cd), [out],
+           F32_FLOPS if cd == F32 else BF16_FLOPS)
+    print(f"{name} alone ({rows} rows, L=1, T=30; ms, CUDA events, library cuDNN nn.LSTM, {smi}): "
+          f"{json.dumps(ms)}; bound {TIMES[name]['bound_ms']:.3f} ms by {TIMES[name]['bound_by']}; vs plain "
+          f"{json.dumps(err)}{note}", flush=True)
 
 
 def check_grouped(cfg, dev, params, rows, n_videos):
@@ -1742,78 +1849,87 @@ def check_grouped(cfg, dev, params, rows, n_videos):
         raise AssertionError("the grouped gateway differs from per-row serving")
 
 
-def time_peer_serve(dev, params, cfg, batch, iters, smi):
-    """The lockstep tier at a main-path batch: checked against its plain
-    version on these inputs, then timed in turns as a whole and per kernel
-    (the serve kernel with the per-step context, fed the peer context;
-    ``peer_context`` alone is timed by time_peer_context). No single PyTorch
-    call computes the decode with feedback: no library time."""
+def time_peer_serve(dev, params, cfg, batch, iters, smi, cd=F32):
+    """The lockstep tier in the compute type ``cd`` at a main-path batch:
+    checked against its plain version on these inputs, then timed in turns
+    as a whole and per kernel (the serve kernel with the per-step context,
+    fed the peer context, beside its f32 twin in bf16; ``peer_context``
+    alone is timed by time_peer_context). No single PyTorch call computes
+    the decode with feedback: no library time."""
     m = cfg.model
     rng = np.random.default_rng(1)
     x_n = windows.normalize_window(unit_rows(rng, dev, (batch, m.h_in)))[0]
     x_n = x_n.contiguous()
     pxs, w = peer_inputs(rng, dev, x_n, cfg.n_other_users, m.h_out)
     peer = params["peer_encoder"]
+    kw = dict(peer_params=peer, peer_xs=pxs, peer_w=w)
     args = (params["encoder"], params["decoder"], params["proj"]["w"], params["proj"]["b"], x_n, m.h_out)
-    out = fused_lstm.fused_serve(*args, peer_params=peer, peer_xs=pxs, peer_w=w)
-    ref = fused_lstm.fused_serve_reference(*args, peer_params=peer, peer_xs=pxs, peer_w=w)
-    err = (out - ref).abs().max().item()
-    if out.shape != ref.shape or not torch.isfinite(out).all() or not err <= KERNEL_TOL:
-        raise AssertionError(f"the lockstep tier at B={batch} disagrees with its plain version: {err:.3e}")
-    note_err("fused_serve_peers", err)
-    tier = in_turns({"plain": lambda: fused_lstm.fused_serve_reference(*args, peer_params=peer, peer_xs=pxs,
-                                                                         peer_w=w),
-                     "kernel": lambda: fused_lstm.fused_serve(*args, peer_params=peer, peer_xs=pxs, peer_w=w)},
+    out = fused_lstm.fused_serve(*args, compute_dtype=cd, **kw)
+    err = check_outputs("fused_serve_peers", [out],
+                        plains(cd, lambda c: [fused_lstm.fused_serve_reference(*args, compute_dtype=c, **kw)]),
+                        f"B={batch}", "serve", cd)
+    tier = in_turns({"plain": lambda: fused_lstm.fused_serve_reference(*args, compute_dtype=cd, **kw),
+                     "kernel": lambda: fused_lstm.fused_serve(*args, compute_dtype=cd, **kw)},
                     {"plain": 1, "kernel": iters})
-    ctx = fused_lstm.peer_context(peer, pxs, w)
-    ms = in_turns({"plain": lambda: fused_lstm.fused_serve_reference(*args, ctx),
-                   "kernel": lambda: fused_lstm._launch_serve(*args, ctx, step_ctx=True)},
-                  {"plain": 1, "kernel": iters})
+    ctx = fused_lstm.peer_context(peer, pxs, w, compute_dtype=cd)
+    enc, dec = fused_lstm._in_tier(params["encoder"], cd), fused_lstm._in_tier(params["decoder"], cd)
+    pw, pb = params["proj"]["w"].to(cd), params["proj"]["b"].float()
+    fns = {"plain": lambda: fused_lstm.fused_serve_reference(*args, ctx, compute_dtype=cd),
+           "kernel": lambda: fused_lstm._launch_serve(enc, dec, pw, pb, x_n, m.h_out, ctx, step_ctx=True,
+                                                      compute_dtype=cd)}
+    if cd == BF:
+        enc32, dec32 = fused_lstm._in_tier(enc, F32), fused_lstm._in_tier(dec, F32)
+        fns["f32_kernel"] = lambda: fused_lstm._launch_serve(enc32, dec32, pw.float(), pb, x_n, m.h_out, ctx,
+                                                             step_ctx=True, compute_dtype=F32)
+    ms = in_turns(fns, {"plain": 1, "kernel": iters, "f32_kernel": iters})
     ps = params["encoder"] + params["decoder"]
     flop = serve_flop(batch, m.h_in, m.h_out, [m.d] + [m.hidden] * (m.layers - 1),
                       [m.d + m.ctx_dim] + [m.hidden] * (m.layers - 1), m.hidden, m.d)
-    record("fused_serve_peers", ms, flop, [x_n, ctx, params["proj"]["w"], params["proj"]["b"]]
-           + [t for p in ps for t in p], [out])
+    name = "fused_serve_peers" + ("_bf16" if cd == BF else "")
+    record(name, ms, flop, [x_n, ctx] + tier_reads([params["proj"]["w"], params["proj"]["b"]]
+                                                   + [t for p in ps for t in p], cd), [out],
+           F32_FLOPS if cd == F32 else BF16_FLOPS)
     tier_flop = flop + stack_flop(batch * cfg.n_other_users, m.h_out, [m.d], m.ctx_dim)
     print(f"lockstep fused_serve tier alone (B={batch}, L={m.layers}, K={cfg.n_other_users}, "
-          f"{m.h_in}+{m.h_out} steps; ms, CUDA events, {smi}): whole tier {json.dumps(tier)} "
+          f"{m.h_in}+{m.h_out} steps, {str(cd)[6:]}; ms, CUDA events, {smi}): whole tier {json.dumps(tier)} "
           f"({tier_flop / tier['kernel'] / 1e9:.1f} TFLOP/s); the serve kernel with the per-step context "
-          f"{json.dumps(ms)}, bound {TIMES['fused_serve_peers']['bound_ms']:.3f} ms by "
-          f"{TIMES['fused_serve_peers']['bound_by']}; max_abs_err vs plain {err:.3e} (tolerance {KERNEL_TOL})",
-          flush=True)
+          f"{json.dumps(ms)}, bound {TIMES[name]['bound_ms']:.3f} ms by {TIMES[name]['bound_by']}; vs plain "
+          f"{json.dumps(err)}", flush=True)
 
 
-def time_peer_context(dev, peer, batch, k, t, smi, with_library):
-    """peer_context alone over B·K peer rows, checked first, against its
-    plain version and, ``with_library``, cuDNN nn.LSTM returning every
-    step's h (TF32 off; its workspace grows with rows x steps, so it runs
-    only at the smaller batch). The last call's numbers go to the kernels
-    line."""
+def time_peer_context(dev, peer, batch, k, t, smi, with_library, cd=F32):
+    """peer_context alone in the compute type ``cd`` over B·K peer rows,
+    checked first, against its plain version (in bf16, and its f32 twin)
+    and, ``with_library``, cuDNN nn.LSTM in ``cd`` returning every step's h
+    (TF32 off; its workspace grows with rows x steps, so it runs only at the
+    smaller batch). The last call's numbers go to the kernels line."""
     rng = np.random.default_rng(2)
     x_n = randn(rng, dev, (batch, 1, 3))
     pxs, w = peer_inputs(rng, dev, x_n, k, t)
-    out = fused_lstm.peer_context(peer, pxs, w)
-    err = (out - fused_lstm.peer_context_reference(peer, pxs, w)).abs().max().item()
-    if not err <= ENC_TOL:
-        raise AssertionError(f"peer_context at B={batch} disagrees with its plain version: {err:.3e}")
-    note_err("peer_context", err)
-    fns = {"plain": lambda: fused_lstm.peer_context_reference(peer, pxs, w),
-           "kernel": lambda: fused_lstm.peer_context(peer, pxs, w)}
+    out = fused_lstm.peer_context(peer, pxs, w, compute_dtype=cd)
+    err = check_outputs("peer_context", [out],
+                        plains(cd, lambda c: [fused_lstm.peer_context_reference(peer, pxs, w, c)]),
+                        f"B={batch}", "ctx", cd)
+    fns = {"plain": lambda: fused_lstm.peer_context_reference(peer, pxs, w, cd),
+           "kernel": lambda: fused_lstm.peer_context(peer, pxs, w, compute_dtype=cd)}
+    if cd == BF:
+        fns["f32_kernel"] = lambda: fused_lstm.peer_context(peer, pxs, w)
     if with_library:
-        net = cudnn_lstm([peer], 3, dev, training=False)
-        flat = pxs.reshape(batch * k, t, 3)
+        net, flat = cudnn_lstm([peer], 3, dev, training=False, dtype=cd), pxs.reshape(batch * k, t, 3).to(cd)
 
         def library():
             with torch.no_grad():
                 return net(flat)[0]
 
         fns["library"] = library
-    ms = in_turns(fns, {"plain": 1, "kernel": 3, "library": 3})
+    ms = in_turns(fns, {"plain": 1, "kernel": 3, "library": 3, "f32_kernel": 3})
     rows = batch * k
-    record("peer_context", ms, stack_flop(rows, t, [3], 128) + 2 * rows * t * 128, [pxs, w, *peer], [out])
-    print(f"peer_context alone (B={batch}, K={k}: {rows} peer rows, T={t}; ms, CUDA events, library cuDNN "
-          f"nn.LSTM over the peer rows, {smi}): {json.dumps(ms)}; bound {TIMES['peer_context']['bound_ms']:.3f} "
-          f"ms by {TIMES['peer_context']['bound_by']}; max_abs_err vs plain {err:.3e}", flush=True)
+    name = "peer_context" + ("_bf16" if cd == BF else "")
+    record(name, ms, stack_flop(rows, t, [3], 128) + 2 * rows * t * 128, [pxs, w] + tier_reads(peer, cd), [out],
+           F32_FLOPS if cd == F32 else BF16_FLOPS)
+    print(f"{name} alone (B={batch}, K={k}: {rows} peer rows, T={t}; ms, CUDA events, library cuDNN "
+          f"nn.LSTM over the peer rows, {smi}): {json.dumps(ms)}; bound {TIMES[name]['bound_ms']:.3f} "
+          f"ms by {TIMES[name]['bound_by']}; vs plain {json.dumps(err)}", flush=True)
 
 
 # --------------------------------------------------------------- stacked-ss-crossuser training
@@ -2909,37 +3025,48 @@ def time_shared_tier(dev, params, cfg, batch, n_groups, smi):
           f"vs plain {err:.3e} (tolerance {TF_TOL}); library: none (AR decode with feedback)", flush=True)
 
 
-def time_decode_streamed_shape(dev, params, cfg, batch, smi):
-    """The per-row decode kernel alone at the TPU streamed tier's shape (the
-    preset's 100 + 100 steps and K peers, window 0: every row's K·T peer
-    tokens attended at every step), checked first, against plain, in
-    turns. Reported beside the kernels line, whose fused_ar_decode entry
-    keeps transformer-30's shape."""
-    m = get_preset(cfg.name, model_peer_window=0).model
+def time_decode_per_row(dev, params, cfg, batch, smi, window=0, tier=F32):
+    """The per-row decode kernel alone in ``tier`` at the preset's
+    100 + 100 steps and K peers and at ``window``: 0, the TPU streamed
+    tier's shape (every row's K·T peer tokens attended at every step); the
+    preset's 8, ``transformer-10s``'s per-row serving. Checked first against
+    the plain version in the same tier, then timed in turns (in bf16 beside
+    the f32 kernel), with its bound over the tokens this window attends.
+    Reported beside the kernels line, whose entries keep transformer-30's
+    shape."""
+    m = get_preset(cfg.name, model_peer_window=window).model
     rng = np.random.default_rng(21)
     past_n, _, anchor = windows.normalize_window(unit_rows(rng, dev, (batch, m.h_in)))
     pm, pv = (x.contiguous() for x in transformer._peer_tokens(
         params, m, unit_rows(rng, dev, (batch, cfg.n_other_users, m.h_out)) - anchor[:, None], None))
     enc, y0 = transformer._encode(params, m, past_n.contiguous()), past_n[:, -1].contiguous()
+    tol, sfx = (TF_TOL, "") if tier == F32 else (BF16_TOL, "_bf16")
     with torch.inference_mode():
-        def plain():
-            return transformer._ar_decode(params, m, enc, pm, pv, y0)
+        def run(kernel, cd):
+            if kernel:
+                return transformer_decode.fused_ar_decode(params, m, enc, y0, peer_mem=pm, peer_valid=pv,
+                                                          compute_dtype=cd)
+            return transformer._ar_decode(params, m, enc, pm, pv, y0, compute_dtype=cd)
 
-        def kernel():
-            return transformer_decode.fused_ar_decode(params, m, enc, y0, peer_mem=pm, peer_valid=pv)
-
-        out = kernel()
-        err = (out - plain()).abs().max().item()
-        if not err <= TF_TOL:
-            raise AssertionError(f"fused_ar_decode at the streamed shape disagrees with plain: {err:.3e}")
-        note_err("fused_ar_decode", err)
-        ms = in_turns({"plain": plain, "kernel": kernel}, {"plain": 1, "kernel": 2})
-    flop = tf_work(m, batch, pm.shape[1], batch * m.h_out * pm.shape[1])[1]
-    b_ms, b_by = bound(flop, [enc, y0, pm, pv] + tree_leaves(params), [out])
-    print(f"fused_ar_decode per-row tier alone at the TPU streamed tier's shape (B={batch}, {m.h_in}+{m.h_out} "
-          f"steps, K={cfg.n_other_users}: {pm.shape[1]} peer tokens, window 0; ms, CUDA events, {smi}): "
-          f"{json.dumps(ms)}; bound {b_ms:.3f} ms by {b_by}; max_abs_err vs plain {err:.3e} (tolerance {TF_TOL}); "
-          f"library: none (AR decode with feedback)", flush=True)
+        out = run(True, tier)
+        err = (out - run(False, tier)).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"fused_ar_decode{sfx} at B={batch}, window {window} disagrees with plain: {err:.3e}")
+        note_err(f"fused_ar_decode{sfx}", err)
+        fns = {"plain": lambda: run(False, tier), "kernel": lambda: run(True, tier)}
+        if tier == BF:
+            fns["f32_kernel"] = lambda: run(True, F32)
+        ms = in_turns(fns, {"plain": 1, "kernel": 2, "f32_kernel": 2})
+    mask = transformer._peer_window_mask(m, pm.shape[1], tq=m.h_out, device=dev)
+    attended = batch * (int(mask.sum()) if mask is not None else m.h_out * pm.shape[1])
+    flop = tf_work(m, batch, pm.shape[1], attended)[1]
+    b_ms, b_by = bound(flop, [enc, y0, pm, pv] + stored(tree_leaves(params), tier), [out],
+                       F32_FLOPS if tier == F32 else BF16_FLOPS)
+    shape = ", the TPU streamed tier's shape" if not window else ""
+    print(f"fused_ar_decode{sfx} per-row tier alone (B={batch}, {m.h_in}+{m.h_out} steps, K={cfg.n_other_users}: "
+          f"{pm.shape[1]} peer tokens, window {window}{shape}; ms, CUDA events, {smi}): {json.dumps(ms)}; bound "
+          f"{b_ms:.3f} ms by {b_by}; max_abs_err vs plain {err:.3e} (tolerance {tol}); library: none (AR decode with "
+          f"feedback)", flush=True)
 
 
 def time_encoder_t100(dev, params, cfg, smi):
@@ -2982,7 +3109,8 @@ def ptxas_report(log):
         if "Compiling entry function" in ln:
             sym = ln.split("'")[1]
             name = next((k for k in KERNEL_SYMBOLS if k in sym), sym[-40:])
-            name += "<bf16>" if "nv_bfloat16" in sym else "<true>" if "ILb1E" in sym else ""
+            tags = [t for t, key in (("true", "ILb1E"), ("bf16", "nv_bfloat16")) if key in sym]
+            name += f"<{', '.join(tags)}>" if tags else ""
         elif "spill" in ln and name:
             spills = ln.split("bytes stack frame,")[-1].replace(" bytes spill ", " ").strip()
         elif "registers" in ln and name:
@@ -2997,6 +3125,162 @@ KERNEL_SYMBOLS = ("fused_serve_kernel", "fused_decode_kernel", "lstm_cell_kernel
                   "lstm_dw_partial_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel", "ss_fwd_kernel", "ss_bwd_kernel",
                   "ss_dw_partial_kernel", "ss_dproj_kernel", "align_peer_fwd_kernel", "align_peer_bwd_kernel",
                   "align_dw_partial_kernel", "align_peer_dw_kernel")
+
+
+# --------------------------------------------------------------- phase 17: the bf16 tiers end to end
+
+
+def deviation_deg(a, b):
+    """Great-circle angle between two (B, T, 3) predicted directions, in
+    degrees: its mean and its max."""
+    deg = geometry.great_circle_deg(a.float(), b.float())
+    return {"mean_deg": deg.mean().item(), "max_deg": deg.max().item()}
+
+
+def drive_bf16_serving(path, cfg, family, dev, params, batches, smi):
+    """``family.serve_fused(compute_dtype=bfloat16)`` behind ``predict_xyz``
+    (normalize → the bf16 kernels → denormalize, tile mask), at each
+    (batch, iters): the first batch is the main path (launches counted); at
+    each, the bf16 and the f32 call in turns (CUDA events) as traj/s, and
+    the bf16 answers' deviation from the f32 ones on the same weights →
+    the path's launches."""
+    launches, out = None, {}
+    for batch, iters in batches:
+        calls = {str(cd)[6:]: serve_call(cfg, params, dev, batch, cd, family) for cd in (F32, BF)}
+        if launches is None:
+            _, launches = drive(path, calls["bfloat16"])
+        got = {k: f()[0] for k, f in calls.items()}
+        if not torch.isfinite(got["bfloat16"]).all():
+            raise AssertionError(f"{path}: non-finite bf16 answers at B={batch}")
+        ms = in_turns(calls, {k: iters for k in calls})
+        out[f"B={batch}"] = {"ms": ms, "traj_per_s": {k: batch * 1e3 / v for k, v in ms.items()},
+                             "bf16_vs_f32": deviation_deg(got["bfloat16"], got["float32"])}
+    print(f"{path}: serve_fused(compute_dtype=bfloat16) against f32 on the same weights (serve call with tile mask, "
+          f"CUDA events, {smi}): {json.dumps(out)}; launches of the first call {json.dumps(launches)}", flush=True)
+    return launches
+
+
+def drive_cell_bf16(dev, params_np, smi, batch=16384):
+    """``cell="pallas"`` on a --bf16 seq2seq-tf-30 model behind
+    ``make_predict_fn(impl="plain")``: the step loops hand the cell kernel
+    bf16 x, h, c (60 launches a call); the answers against the same model on
+    ``cell="xla"`` (``lstm_cell`` on the card) and the bf16-vs-f32 deviation
+    from the f32 model of the same values; both cells and the f32 model in
+    turns → the path's launches."""
+    cfg = get_preset(PRESET, model_cell="pallas", model_param_dtype="bfloat16")
+    xla, f32 = get_preset(PRESET, model_param_dtype="bfloat16"), get_preset(PRESET)
+    params = params_from_numpy(params_np, dev)
+    bparams = tree_unflatten(params, [p.bfloat16() for p in tree_leaves(params)])
+    wide = tree_unflatten(params, [p.float() for p in tree_leaves(bparams)])
+    past = unit_rows(np.random.default_rng(13), dev, (batch, cfg.model.h_in))
+    fns = {"cell=pallas bf16": infer.make_predict_fn(bparams, cfg, device=dev, impl="plain"),
+           "cell=xla bf16": infer.make_predict_fn(bparams, xla, device=dev, impl="plain"),
+           "f32 serve_fused": infer.make_predict_fn(wide, f32, device=dev, impl="fused")}
+    got, launches = drive(S2S_CELL_BF16, lambda: fns["cell=pallas bf16"](past))
+    plain, ref = fns["cell=xla bf16"](past), fns["f32 serve_fused"](past)
+    ms = in_turns({k: (lambda f=f: f(past)) for k, f in fns.items()}, dict.fromkeys(fns, 3))
+    gaps = {"vs_cell_xla_bf16": deviation_deg(got, plain), "bf16_vs_f32": deviation_deg(got, ref)}
+    print(f"{S2S_CELL_BF16}: B={batch}, {launches['fused_lstm_cell_bf16']} bf16 cell launches a call (30 + 30 "
+          f"steps: 60); {json.dumps(gaps)} (limit vs cell=xla: {BF16_ANSWER_TOL} rad as degrees); serve call "
+          f"(CUDA events, {smi}) {json.dumps(ms)}, traj/s {json.dumps({k: batch * 1e3 / v for k, v in ms.items()})}",
+          flush=True)
+    if launches["fused_lstm_cell_bf16"] != 60 or not gaps["vs_cell_xla_bf16"]["max_deg"] <= math.degrees(
+            BF16_ANSWER_TOL):
+        raise AssertionError("the bf16 cell=pallas path disagrees with cell=xla or launched other than 60 cells")
+    return launches
+
+
+def check_bf16_dtypes(cfg, state, path):
+    """A --bf16 model after train_loop on the fused route, leaf by leaf as
+    JAX's: the params bf16 (video-fusion's conv stack f32, as JAX's init
+    makes it); the moments f32 where the gradient is: the LSTM cells' W and b
+    (the kernels' custom VJPs give f32 dW, db) and the conv stack, bf16
+    elsewhere; the transformer, which runs no kernel under bf16, all bf16."""
+    keys = []
+    walk(state.params, lambda k, _: keys.append(k))
+    kernel_cells = cfg.model_family != "transformer"
+    want_p = [F32 if k.startswith("conv.") else BF for k in keys]
+    want_m = [F32 if k.startswith("conv.") or (kernel_cells and k.split(".")[0] in ("encoder", "decoder",
+                                                                                   "peer_encoder")) else BF
+              for k in keys]
+    got_p = [p.dtype for p in tree_leaves(state.params)]
+    for what, want, got in (("params", want_p, got_p), ("mu", want_m, [m.dtype for m in state.opt_state.mu]),
+                            ("nu", want_m, [v.dtype for v in state.opt_state.nu])):
+        if got != want:
+            raise AssertionError(f"{path}: {what} dtypes {[(k, str(g)[6:]) for k, g in zip(keys, got)]}")
+    print(f"{path}: dtypes as JAX's: params {sorted({str(d)[6:] for d in got_p})}, moments f32 for "
+          f"{[k for k, d in zip(keys, want_m) if d == F32]}, bf16 for the rest", flush=True)
+
+
+def drive_bf16_params(preset, dev, also, smi, windows_=None, steps=6, rows=512, iters=5):
+    """``train --bf16`` (``model_param_dtype="bfloat16"``) on one preset at
+    B = TRAIN_B: :func:`drive_training` of a short run (an evaluation,
+    which decodes through ``apply`` in bf16, and a checkpoint every half;
+    the resume bit-equal; ``also``: the kernels it must launch), the
+    params' and moments' dtypes leaf by leaf (:func:`check_bf16_dtypes`),
+    one step on the card against the CPU port's and the f32 model's of the
+    same values (:func:`bf16_step_check`), ``eval`` of the checkpoint
+    refused with JAX's model-hash message, and the fast step against the
+    f32 model's, in turns."""
+    path = f"train {preset} --bf16"
+    cfg = get_preset(preset, model_param_dtype="bfloat16", batch_size=TRAIN_B, steps=steps,
+                     eval_every=steps // 2, ckpt_every=steps // 2)
+    trained, train_d, launches = drive_training(cfg, path, dev, also, windows_=windows_, step_check=False,
+                                                resume_tol=0.0)
+    check_bf16_dtypes(cfg, trained, path)
+    f32 = get_preset(preset, batch_size=TRAIN_B, steps=steps)
+    wide = tree_unflatten(trained.params, [p.float() for p in tree_leaves(trained.params)])
+    # the floor on the gradients only: the LSTM presets' fused route computes
+    # the loss with the f32 kernels on the widened weights, the f32 model's
+    # loss, and only the bf16 leaves' gradients round
+    bf16_step_check(cfg, trained, train_d, path, rows, f32=(f32, wide), floors=("grads",))
+    with tempfile.TemporaryDirectory() as ck_dir:
+        checkpoint.Checkpointer(ck_dir, cfg).save(trained)
+        try:
+            cli.main(["eval", "--preset", preset, "--ckpt-dir", ck_dir, "--device", "cuda:0"])
+            refused = ""
+        except SystemExit as e:
+            refused = str(e)
+    if "model-config hash mismatch" not in refused:
+        raise AssertionError(f"{path}: eval did not refuse the bf16 checkpoint ({refused!r})")
+    fam = get_family(cfg.model_family)
+    batch = next(train.batch_iterator(train_d, cfg.batch_size, seed=2))
+    opt = train.make_optimizer(cfg)
+    st = {}
+
+    def stepper(c, state, name):
+        step = train.make_train_step(c, fam.apply, opt, gc_metric=False, **family_fns(fam))
+        st[name] = state
+
+        def one():
+            st[name] = step(st[name], batch)[0]
+        return one
+
+    ms = in_turns({"float32": stepper(f32, train.TrainState(wide, opt.init(wide), 0, trained.rng), "float32"),
+                   "bfloat16": stepper(cfg, trained, "bfloat16")}, {"float32": iters, "bfloat16": iters})
+    print(f"{path}: eval of its checkpoint refused ({refused.split(';')[0]}); train step (B={cfg.batch_size}, fast "
+          f"step, CUDA events, {smi}), the --bf16 model against the f32 model of the same values: "
+          f"{json.dumps({k: {'ms_per_step': v} for k, v in ms.items()})}", flush=True)
+    return launches
+
+
+def time_bf16_serving_kernels(dev, s2s_params, cparams, ccfg, c10params, c10cfg, smi):
+    """Each bf16 serving tier alone against its bf16 plain version and its
+    f32 twin, in turns, at its main path's shape, with its bound (the bf16
+    products at the bf16 tensor-core peak) and the library call where one
+    computes a like function: cuDNN nn.LSTM in bf16 for the encoders, and
+    torch.lstm_cell on bf16 tensors for the cell (both round more than the
+    tier does: another function, timed as a yardstick)."""
+    cfg = get_preset(PRESET)
+    time_serve_kernel("fused_serve", dev, s2s_params, cfg, 262144, 3, 0, smi, cd=BF)
+    time_serve_kernel("fused_serve_ctx", dev, cparams, ccfg, 65536, 3, ccfg.model.ctx_dim, smi, cd=BF)
+    time_encode_kernel(dev, 65536, smi, True, cd=BF)
+    time_peer_serve(dev, c10params, c10cfg, 65536, 1, smi, cd=BF)
+    for batch, with_library in ((65536, False), (4096, True)):
+        time_peer_context(dev, c10params["peer_encoder"], batch, c10cfg.n_other_users, c10cfg.model.h_out, smi,
+                          with_library, cd=BF)
+    time_cell_kernel(dev, smi, 3, True, cd=BF)
+    time_cell_kernel(dev, smi, 128, False, cd=BF)
 
 
 # --------------------------------------------------------------- main
@@ -3203,7 +3487,8 @@ def main():
         check_grouped_tf(t10cfg, dev, t10params, batch, 8, TF10_GROUPED)
         time_grouped(t10cfg, dev, t10params, batch, 8, smi, TF10_GROUPED, profile=batch == 4096)
     time_shared_tier(dev, t10params, t10cfg, 4096, 8, smi)
-    time_decode_streamed_shape(dev, t10params, t10cfg, 4096, smi)
+    time_decode_per_row(dev, t10params, t10cfg, 4096, smi)
+    time_decode_per_row(dev, t10params, t10cfg, 4096, smi, window=t10cfg.model.peer_window, tier=BF)
     torch.cuda.empty_cache()
     check_grouped_tf(tfcfg, dev, tparams, 16384, 8, f"{TF_SERVE} grouped")
     time_grouped(tfcfg, dev, tparams, 16384, 8, smi, f"{TF_SERVE} grouped")
@@ -3221,12 +3506,36 @@ def main():
     time_tf_step(t10tcfg, t10trained, t10train_d, TF10_TRAIN, smi, iters=(2, 2))
     time_encoder_t100(dev, t10params, t10cfg, smi)
 
+    phase("17 the bf16 tiers: bf16 serving and train --bf16")
+    # 17. the serving kernels' bf16 tiers behind their entry points
+    # (compute_dtype=bfloat16), the cell on a --bf16 model, then train --bf16
+    # on five presets (the LSTM cells train on the f32 kernels with f32
+    # gradients; the transformer on plain autograd in bf16, as in JAX), and
+    # each bf16 tier alone against its f32 twin
+    s2s_serve_bf16 = drive_bf16_serving(S2S_SERVE_BF16, cfg, seq2seq, dev, params, ((16384, 10), (262144, 2)), smi)
+    cu_serve_bf16 = drive_bf16_serving(CU_SERVE_BF16, ccfg, cross_user, dev, cparams, ((16384, 5), (65536, 2)), smi)
+    cu10_serve_bf16 = drive_bf16_serving(CU10_SERVE_BF16, c10cfg, cross_user, dev, c10params,
+                                         ((16384, 1), (65536, 1)), smi)
+    s2s_cell_bf16 = drive_cell_bf16(dev, params_np, smi)
+    torch.cuda.empty_cache()
+    lstm_kernels = ["lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw"]
+    ss_kernels = ["ss_decode_fwd", "ss_decode_bwd", "ss_decode_dw", "ss_decode_dproj"]
+    drive_bf16_params(PRESET, dev, lstm_kernels, smi)
+    drive_bf16_params(CU_PRESET, dev, lstm_kernels + ss_kernels, smi)
+    drive_bf16_params(CU10_PRESET, dev, lstm_kernels + ["ss_decode_dproj"] + [
+        name for name, *_, p in KERNELS if p == CU10_TRAIN], smi, steps=4, rows=256, iters=2)
+    drive_bf16_params(FU_PRESET, dev, lstm_kernels + ss_kernels, smi, windows_=fu_windows)
+    drive_bf16_params(TF_PRESET, dev, [], smi, steps=4)
+    torch.cuda.empty_cache()
+    time_bf16_serving_kernels(dev, params, cparams, ccfg, c10params, c10cfg, smi)
+
     phase("done")
     launches = {S2S_SERVE: s2s_serve, S2S_CELL: s2s_cell, S2S_DECODE: s2s_decode, S2S_TRAIN: s2s_train,
                 CU_SERVE: cu_serve, CU_TRAIN: cu_train, CU10_SERVE: cu10_serve, CU10_TRAIN: cu10_train,
                 FE_PATH: fe_launches, TF_SERVE: tf_serve, TF_SERVE_F32: tf_serve_f32, TF_TRAIN: tf_train,
                 TF10_GROUPED_F32: tf10_grouped_f32, S2S_TRAIN_BF16: s2s_train_bf16, CU_TRAIN_BF16: cu_train_bf16,
-                CU10_TRAIN_BF16: cu10_train_bf16}
+                CU10_TRAIN_BF16: cu10_train_bf16, S2S_SERVE_BF16: s2s_serve_bf16, CU_SERVE_BF16: cu_serve_bf16,
+                CU10_SERVE_BF16: cu10_serve_bf16, S2S_CELL_BF16: s2s_cell_bf16}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
          "launches": launches[path][name], "max_abs_err": ERRS[name], **TIMES[name]}

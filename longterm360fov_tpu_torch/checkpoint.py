@@ -5,7 +5,10 @@ checkpoint is ``<directory>/<step>/state.pt`` holding the params, the
 optimizer state, the step and the generator state, with its metrics, when
 given, in ``metrics.json`` beside it. ``config.json`` keeps the same keys as
 the JAX package's (``name``, ``hash``, ``model_hash``). Restore is exact: a
-resumed run continues bit for bit from the saved step.
+resumed run continues bit for bit from the saved step, a ``--bf16`` model's
+too, whose f32 moments (those of the LSTM cells the kernels train) are
+restored in f32 where orbax's restore into the fresh state's bf16 moments
+rounds them (ROADMAP.md, known divergences).
 """
 
 from __future__ import annotations
@@ -128,8 +131,10 @@ class Checkpointer:
         return pick(scored)[1]
 
     def restore(self, state_like: TrainState, step: Optional[int] = None) -> TrainState:
-        """Restore into the structure, devices and dtypes of ``state_like``
-        (a freshly initialized TrainState)."""
+        """Restore into the structure and devices of ``state_like`` (a
+        freshly initialized TrainState): the params in its dtypes, the
+        optimizer's moments in the dtypes they were saved in, which the
+        updates may have promoted (``train.make_optimizer``)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
@@ -138,14 +143,14 @@ class Checkpointer:
             weights_only=True,
         )
 
-        def like(tensors, refs):
+        def like(tensors, refs, saved_dtypes=False):
             if len(tensors) != len(refs):
                 raise ValueError(f"checkpoint has {len(tensors)} tensors, the state {len(refs)}")
             out = []
             for t, r in zip(tensors, refs):
                 if t.shape != r.shape:
                     raise ValueError(f"checkpoint tensor {tuple(t.shape)} vs state {tuple(r.shape)}")
-                out.append(t.to(device=r.device, dtype=r.dtype))
+                out.append(t.to(device=r.device, dtype=t.dtype if saved_dtypes else r.dtype))
             return out
 
         params = tree_unflatten(
@@ -153,8 +158,8 @@ class Checkpointer:
         )
         opt = AdamState(
             saved["opt_count"],
-            like(saved["opt_mu"], state_like.opt_state.mu),
-            like(saved["opt_nu"], state_like.opt_state.nu),
+            like(saved["opt_mu"], state_like.opt_state.mu, saved_dtypes=True),
+            like(saved["opt_nu"], state_like.opt_state.nu, saved_dtypes=True),
         )
         rng = torch.Generator()
         rng.set_state(saved["rng"])

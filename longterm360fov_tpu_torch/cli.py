@@ -36,7 +36,6 @@ _NOT_PORTED = {
     "data_parallel": "--data-parallel: ROADMAP.md, slice 'parallelism'",
     "seq_parallel": "--seq-parallel: ROADMAP.md, slice 'parallelism'",
     "pipeline_parallel": "--pipeline-parallel: ROADMAP.md, slice 'parallelism'",
-    "bf16": "--bf16: parameter dtype bfloat16: ROADMAP.md slice I-c",
     "tb_dir": "--tb-dir: ROADMAP.md, slice 'the TCP daemon and CLI'",
 }
 
@@ -232,13 +231,13 @@ def _build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--log-file")
     tr.add_argument("--resume", action="store_true")
     tr.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
-    # JAX train flags not ported yet: each raises, naming its ROADMAP item
     tr.add_argument("--train-compute", dest="train_compute", choices=["float32", "bfloat16"])
+    tr.add_argument("--peer-align", action="store_true", dest="peer_align")
+    tr.add_argument("--bf16", action="store_true", help="bfloat16 params (model.param_dtype)")
+    # JAX train flags not ported yet: each raises, naming its ROADMAP item
     tr.add_argument("--data-parallel", action="store_true")
     tr.add_argument("--seq-parallel", type=int, default=0)
     tr.add_argument("--pipeline-parallel", type=int, default=0)
-    tr.add_argument("--peer-align", action="store_true", dest="peer_align")
-    tr.add_argument("--bf16", action="store_true")
     tr.add_argument("--tb-dir")
 
     ev = sub.add_parser("eval", help="evaluate a checkpoint")
@@ -448,6 +447,8 @@ def cmd_train(args):
     over = {k: getattr(args, k) for k in ("steps", "batch_size", "lr", "accum", "gc_weight",
                                           "train_compute")
             if getattr(args, k) is not None}
+    if args.bf16:  # bf16 params: part of the model hash, so eval refuses the checkpoint, as in JAX
+        over["model_param_dtype"] = "bfloat16"
     cfg = get_preset(args.preset, **_overrides(args, **over))
     fam = get_family(cfg.model_family)
     device = _device(args.device)

@@ -1,9 +1,9 @@
 // Whole-request LSTM serve kernel and whole-sequence encode kernel for
-// Hopper (sm_90a), exact f32.
+// Hopper (sm_90a), in exact f32 and in the bf16 compute tier.
 //
 // fused_serve_kernel replaces the TPU Pallas kernel
 //   longterm360fov_tpu/ops/fused_lstm.py::fused_serve / _serve_kernel
-// in its no-context, static-context and lockstep-peer f32 tiers. One launch
+// in its no-context, static-context and lockstep-peer tiers, f32 and bf16. One launch
 // runs the whole request (the lockstep tier: two, see below):
 //   * the L-layer encoder over T_in steps, from zero state;
 //   * T_out autoregressive decoder steps. Decoder layer l starts from the
@@ -24,9 +24,10 @@
 // and all (a kernel of its own compiled the same device code with 197
 // registers against 248 and ran 2.4x slower); the only new code loads the
 // states, c into the owner-private slots of lstm_layer_step.
-// lstm_cell_kernel replaces
+// lstm_cell_kernel<ST> replaces
 //   longterm360fov_tpu/ops/fused_lstm.py::fused_lstm_cell / _cell_kernel:
-// one layer-step of B rows (the cell="pallas" path: 60 launches a
+// one layer-step of B rows, x, h, c, W and b stored in ST (f32, or bf16 on a
+// bf16 model, whose h and c it writes in bf16 too) (the cell="pallas" path: 60 launches a
 // seq2seq-tf-30 request). One step has no recurrence to keep on chip, so it
 // is bound by its products, (Din + H) x 4H MACs a row, with x, h, c in and
 // h, c out through device memory (40 bytes a row-unit at Din = H = 128,
@@ -83,19 +84,39 @@
 //     buffer at the start of every decoder step instead of once. The
 //     per-step load is a template parameter, so the static tier's instance
 //     keeps its registers.
+// The bf16 compute tier (compute_dtype=bfloat16) is the compute type CT of
+// compute_type.cuh, a template parameter of every kernel but the cell's:
+//   * W and proj_w are read as bf16, rounded once per call by the wrapper:
+//     half the bytes of f32 from L2 for the same FMAs;
+//   * every activation that enters a product is rounded where it enters it
+//     (cround in accumulate and in the projection): the staged input x_t,
+//     the stored h of every layer (so the decoder's seed h is the rounded
+//     encoder h), the static context, the first and the fed-back y, the
+//     peers' inputs and h. The shared buffers stay f32: rounding at the
+//     product is the same arithmetic as rounding where the TPU kernel
+//     stages its bf16 buffers, and it leaves the unrounded peer h for
+//     ctx_t = Σ_k w_k · h_k, which the TPU kernel sums in f32 and rounds
+//     only where the decoder stages it (here: where the decoder's product
+//     reads the reloaded f32 ctx_t);
+//   * c, the peers' c, the gate sums, the biases, ctx_t and the written y
+//     stay f32; fused_encode_kernel writes the rounded top-layer h, as the
+//     TPU kernel reads it back from its bf16 buffer.
+// The products still run on the FMA units: the tier changes what is
+// rounded and halves the weight bytes, not the arithmetic rate.
 
-#include <cuda_runtime.h>
+#include "compute_type.cuh"
 
 #define MAX_LAYERS 8
 #define TR 8  // rows per thread
 #define TJ 4  // hidden units per thread: one float4 of each gate's columns
 
+template <typename CT>
 struct Weights {
-  const float* w_enc[MAX_LAYERS];  // (in_l + H, 4H), gate order i, f, g, o
+  const CT* w_enc[MAX_LAYERS];     // (in_l + H, 4H), gate order i, f, g, o
   const float* b_enc[MAX_LAYERS];  // (4H,)
-  const float* w_dec[MAX_LAYERS];
+  const CT* w_dec[MAX_LAYERS];
   const float* b_dec[MAX_LAYERS];
-  const float* proj_w;  // (H, D)
+  const CT* proj_w;     // (H, D)
   const float* proj_b;  // (D,)
 };
 
@@ -104,27 +125,25 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
 }
 
 // acc[g][r][j] += sum_k z[k][r0 + r] * W[k][g * H + j0 + j] for k < K.
-// z is k-major (K, R) in shared memory; W rows are 4H long.
+// z is k-major (K, R) in shared memory, rounded to CT as it enters the
+// product; W (CT) rows are 4H long.
+template <typename CT>
 __device__ __forceinline__ void accumulate(float (&acc)[4][TR][TJ],
                                            const float* z, int K,
-                                           const float* __restrict__ W,
+                                           const CT* __restrict__ W,
                                            int H, int R, int r0, int j0) {
   const int G = 4 * H;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
     const float4 a0 = *reinterpret_cast<const float4*>(z + k * R + r0);
     const float4 a1 = *reinterpret_cast<const float4*>(z + k * R + r0 + 4);
-    const float a[TR] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float* wk = W + (size_t)k * G + j0;
+    const float a[TR] = {cround<CT>(a0.x), cround<CT>(a0.y), cround<CT>(a0.z),
+                         cround<CT>(a0.w), cround<CT>(a1.x), cround<CT>(a1.y),
+                         cround<CT>(a1.z), cround<CT>(a1.w)};
+    const CT* wk = W + (size_t)k * G + j0;
     float w[4][TJ];
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(wk + g * H));
-      w[g][0] = v.x;
-      w[g][1] = v.y;
-      w[g][2] = v.z;
-      w[g][3] = v.w;
-    }
+    for (int g = 0; g < 4; ++g) ldw4(wk + g * H, w[g]);
 #pragma unroll
     for (int g = 0; g < 4; ++g)
 #pragma unroll
@@ -138,11 +157,13 @@ __device__ __forceinline__ void accumulate(float (&acc)[4][TR][TJ],
 // One layer-step for the block's R rows:
 //   gates = [in, h] @ W + b;  c = f * c + i * g;  h = o * tanh(c).
 // in: (k_in, R) layer input; h: (H, R) this layer's hidden state, read and
-// then overwritten; c: this layer's cell state, owner-private layout
-// [TR * TJ][nthr].
+// then overwritten (f32, unrounded); c: this layer's cell state,
+// owner-private layout [TR * TJ][nthr]. W in the compute type CT, the bias
+// in BT (f32, or the cell's bf16).
+template <typename CT, typename BT>
 __device__ __forceinline__ void lstm_layer_step(
     const float* in, int k_in, float* h, float* c,
-    const float* __restrict__ W, const float* __restrict__ bias, int H, int R,
+    const CT* __restrict__ W, const BT* __restrict__ bias, int H, int R,
     int r0, int j0, int tid, int nthr) {
   float acc[4][TR][TJ];
 #pragma unroll
@@ -157,13 +178,7 @@ __device__ __forceinline__ void lstm_layer_step(
 
   float b[4][TJ];
 #pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(bias + g * H + j0));
-    b[g][0] = v.x;
-    b[g][1] = v.y;
-    b[g][2] = v.z;
-    b[g][3] = v.w;
-  }
+  for (int g = 0; g < 4; ++g) ldw4(bias + g * H + j0, b[g]);
 #pragma unroll
   for (int r = 0; r < TR; ++r)
 #pragma unroll
@@ -196,8 +211,9 @@ __device__ __forceinline__ void load_step(float* x,
 // The L-layer encoder over T steps of xs (B, T, D) from zero state, for the
 // block's R rows: h_s and c_s (L x H * R floats each) end holding the final
 // states, x_s (D, R) the last step's input.
+template <typename CT>
 __device__ __forceinline__ void encode(const float* __restrict__ xs,
-                                       const float* const* w,
+                                       const CT* const* w,
                                        const float* const* b, float* h_s,
                                        float* c_s, float* x_s, long long row0,
                                        int B, int T, int D, int H, int L,
@@ -222,11 +238,12 @@ __device__ __forceinline__ void encode(const float* __restrict__ xs,
 // (C = 0) or a static context ctx (B, C), written into the decoder's layer-0
 // buffer once. STEP_CTX = true: the lockstep-peer tier's per-step context
 // ctx (B, T_out, C), reloaded every decoder step. A template parameter, so
-// that the static tier's instance keeps its registers.
-template <bool STEP_CTX>
+// that the static tier's instance keeps its registers. The projection rounds
+// h_top to CT; y is written and fed back in f32.
+template <bool STEP_CTX, typename CT>
 __device__ __forceinline__ void decode(const float* __restrict__ ctx,
                                        float* __restrict__ out,
-                                       const Weights& wts, float* h_s,
+                                       const Weights<CT>& wts, float* h_s,
                                        float* c_s, float* x_s, long long row0,
                                        int B, int T_out, int D, int C, int H,
                                        int L, int R, int r0, int j0, int tid,
@@ -260,7 +277,7 @@ __device__ __forceinline__ void decode(const float* __restrict__ ctx,
       const int r = i / D, d = i % D;
       float y = 0.0f;
       for (int k = 0; k < H; ++k)
-        y = fmaf(h_top[k * R + r], __ldg(wts.proj_w + k * D + d), y);
+        y = fmaf(cround<CT>(h_top[k * R + r]), ldw1(wts.proj_w + k * D + d), y);
       y += __ldg(wts.proj_b + d);
       x_s[d * R + r] = y;
       const long long row = row0 + r;
@@ -270,47 +287,54 @@ __device__ __forceinline__ void decode(const float* __restrict__ ctx,
   }
 }
 
-// src (B, H) row-major → dst (H, R) k-major for the block's rows; 0 past the
-// batch end.
+// src (B, H) row-major, stored in ST → dst (H, R) k-major f32 for the
+// block's rows; 0 past the batch end.
+template <typename ST>
 __device__ __forceinline__ void load_rows_kmajor(float* dst,
-                                                 const float* __restrict__ src,
+                                                 const ST* __restrict__ src,
                                                  long long row0, int B, int H,
                                                  int R, int tid, int nthr) {
   for (int i = tid; i < R * H; i += nthr) {
     const int r = i / H, k = i % H;
     const long long row = row0 + r;
-    dst[k * R + r] = row < B ? src[row * H + k] : 0.0f;
+    dst[k * R + r] = row < B ? ldw1(src + row * H + k) : 0.0f;
   }
 }
 
 // The cell state of the thread's TR rows x TJ units, src (B, H) → its
 // owner-private slots c[(r * TJ + j) * nthr + tid] (lstm_layer_step's
-// layout), and back; rows past the batch end are 0 and not written.
-__device__ __forceinline__ void load_c(float* c, const float* __restrict__ src,
+// layout), and back, src and dst stored in ST; rows past the batch end are 0
+// and not written.
+template <typename ST>
+__device__ __forceinline__ void load_c(float* c, const ST* __restrict__ src,
                                        long long row0, int B, int H, int r0,
                                        int j0, int tid, int nthr) {
 #pragma unroll
   for (int r = 0; r < TR; ++r) {
     const long long row = row0 + r0 + r;
-    const float4 v = row < B ? __ldg(reinterpret_cast<const float4*>(src + row * H + j0))
-                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    c[(r * TJ + 0) * nthr + tid] = v.x;
-    c[(r * TJ + 1) * nthr + tid] = v.y;
-    c[(r * TJ + 2) * nthr + tid] = v.z;
-    c[(r * TJ + 3) * nthr + tid] = v.w;
+    float v[TJ] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (row < B) ldw4(src + row * H + j0, v);
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) c[(r * TJ + j) * nthr + tid] = v[j];
   }
 }
 
-__device__ __forceinline__ void store_c(float* __restrict__ dst, const float* c,
+template <typename ST>
+__device__ __forceinline__ void store_c(ST* __restrict__ dst, const float* c,
                                         long long row0, int B, int H, int r0,
                                         int j0, int tid, int nthr) {
 #pragma unroll
   for (int r = 0; r < TR; ++r) {
     const long long row = row0 + r0 + r;
-    if (row < B)
+    if (row >= B) continue;
+    if constexpr (std::is_same<ST, float>::value) {
       *reinterpret_cast<float4*>(dst + row * H + j0) =
           make_float4(c[(r * TJ + 0) * nthr + tid], c[(r * TJ + 1) * nthr + tid],
                       c[(r * TJ + 2) * nthr + tid], c[(r * TJ + 3) * nthr + tid]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < TJ; ++j) st1(dst + row * H + j0 + j, c[(r * TJ + j) * nthr + tid]);
+    }
   }
 }
 
@@ -319,11 +343,11 @@ __device__ __forceinline__ void store_c(float* __restrict__ dst, const float* c,
 // (fused_decode), the decoder alone from those states, with past = y0 as
 // (B, 1, D). One instance for both, so that the decoder loop is compiled
 // once, with the serve kernel's registers.
-template <bool STEP_CTX>
+template <bool STEP_CTX, typename CT>
 __global__ void __launch_bounds__(256)
     fused_serve_kernel(const float* __restrict__ past,
                        const float* __restrict__ ctx, float* __restrict__ out,
-                       const Weights wts, int B, int T_in, int T_out, int D,
+                       const Weights<CT> wts, int B, int T_in, int T_out, int D,
                        int C, int H, int L, int R,
                        const float* __restrict__ h0,
                        const float* __restrict__ c0) {
@@ -353,17 +377,20 @@ __global__ void __launch_bounds__(256)
   }
   // the decoder starts from the final (h, c) of every layer, which stay
   // where they are, and from the last observed position (x_s holds it)
-  decode<STEP_CTX>(ctx, out, wts, h_s, c_s, x_s, row0, B, T_out, D, C, H, L,
+  decode<STEP_CTX, CT>(ctx, out, wts, h_s, c_s, x_s, row0, B, T_out, D, C, H, L,
                    R, r0, j0, tid, nthr);
 }
 
 // One LSTM step (fused_lstm_cell) for the block's R rows: x (B, Din),
-// h and c (B, H) in, lstm_layer_step, h and c out.
+// h and c (B, H) in, lstm_layer_step, h and c out, every tensor stored in ST.
+// The products of ST values are exact in f32, so the gates and the new c are
+// f32 sums, rounded to ST only where h and c are written.
+template <typename ST>
 __global__ void __launch_bounds__(256)
-    lstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
-                     const float* __restrict__ c, const float* __restrict__ w,
-                     const float* __restrict__ b, float* __restrict__ h_out,
-                     float* __restrict__ c_out, int B, int Din, int H, int R) {
+    lstm_cell_kernel(const ST* __restrict__ x, const ST* __restrict__ h,
+                     const ST* __restrict__ c, const ST* __restrict__ w,
+                     const ST* __restrict__ b, ST* __restrict__ h_out,
+                     ST* __restrict__ c_out, int B, int Din, int H, int R) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -384,7 +411,7 @@ __global__ void __launch_bounds__(256)
   for (int i = tid; i < R * H; i += nthr) {
     const int r = i / H, k = i % H;
     const long long row = row0 + r;
-    if (row < B) h_out[row * H + k] = h_s[k * R + r];
+    if (row < B) st1(h_out + row * H + k, h_s[k * R + r]);
   }
   store_c(c_out, c_s, row0, B, H, r0, j0, tid, nthr);
 }
@@ -393,12 +420,14 @@ __global__ void __launch_bounds__(256)
 // (wts.w_enc[0] (D + C, 4C), from zero state) over the B·K peer rows of pxs
 // (B·K, T, D), peer row p = b·K + k. A block holds all K peers of RV viewers
 // (R = RV·K rows, contiguous from b0·K), so after every step
-// ctx_t[b] = Σ_k pwt[b, k] · h_k,t (k = 0 .. K - 1 in order, from the f32 h)
-// is a block-local sum; it is written to ctx (B, T, C).
+// ctx_t[b] = Σ_k pwt[b, k] · h_k,t (k = 0 .. K - 1 in order, from the f32 h,
+// unrounded in the bf16 tier too) is a block-local sum; it is written to ctx
+// (B, T, C) in f32.
+template <typename CT>
 __global__ void __launch_bounds__(256)
     peer_context_kernel(const float* __restrict__ pxs,
                         const float* __restrict__ pwt, float* __restrict__ ctx,
-                        const Weights wts, int B, int K, int T, int D, int C,
+                        const Weights<CT> wts, int B, int K, int T, int D, int C,
                         int RV) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -431,9 +460,10 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+template <typename CT>
 __global__ void __launch_bounds__(256)
     fused_encode_kernel(const float* __restrict__ xs, float* __restrict__ out,
-                        const Weights wts, int B, int T, int D, int H, int L,
+                        const Weights<CT> wts, int B, int T, int D, int H, int L,
                         int R) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -448,13 +478,13 @@ __global__ void __launch_bounds__(256)
 
   encode(xs, wts.w_enc, wts.b_enc, h_s, c_s, x_s, row0, B, T, D, H, L, R, r0,
          j0, tid, nthr);
-  // the final top-layer h, row-major: neighbouring threads write neighbouring
-  // units of a row
+  // the final top-layer h as the products read it (rounded to CT), row-major:
+  // neighbouring threads write neighbouring units of a row
   const float* h_top = h_s + (L - 1) * HR;
   for (int i = tid; i < R * H; i += nthr) {
     const int r = i / H, k = i % H;
     const long long row = row0 + r;
-    if (row < B) out[row * H + k] = h_top[k * R + r];
+    if (row < B) out[row * H + k] = cround<CT>(h_top[k * R + r]);
   }
 }
 
@@ -465,51 +495,86 @@ static bool bad_shape(int batch, int t_len, int d, int hidden, int layers,
          (rows / TR) * (hidden / TJ) > 256;
 }
 
+// The pointer arrays (null for an absent part) as the kernels' Weights<CT>.
+template <typename CT>
+static Weights<CT> weights(const void* const* w_enc, const void* const* b_enc,
+                           const void* const* w_dec, const void* const* b_dec,
+                           const void* proj_w, const void* proj_b,
+                           int layers) {
+  Weights<CT> w = {};
+  for (int l = 0; l < layers; ++l) {
+    if (w_enc) w.w_enc[l] = static_cast<const CT*>(w_enc[l]);
+    if (b_enc) w.b_enc[l] = static_cast<const float*>(b_enc[l]);
+    if (w_dec) w.w_dec[l] = static_cast<const CT*>(w_dec[l]);
+    if (b_dec) w.b_dec[l] = static_cast<const float*>(b_dec[l]);
+  }
+  w.proj_w = static_cast<const CT*>(proj_w);
+  w.proj_b = static_cast<const float*>(proj_b);
+  return w;
+}
+
+// Set the kernel's dynamic shared memory and launch it on (grid, threads).
+template <typename Kernel, typename... Args>
+static int launch(Kernel kernel, int grid, int threads, size_t smem,
+                  void* stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// The serve kernel of the tier (STEP_CTX: the lockstep tier's per-step
+// context) in the compute type CT.
+template <bool STEP_CTX, typename CT>
+static int launch_serve(const void* past, const void* ctx, void* out,
+                        const Weights<CT>& w, int batch, int t_in, int t_out,
+                        int d, int ctx_dim, int hidden, int layers, int rows,
+                        const void* h0, const void* c0, void* stream) {
+  const size_t smem =
+      ((size_t)2 * layers * hidden + d + ctx_dim) * rows * sizeof(float);
+  return launch(fused_serve_kernel<STEP_CTX, CT>, (batch + rows - 1) / rows,
+                (rows / TR) * (hidden / TJ), smem, stream,
+                static_cast<const float*>(past), static_cast<const float*>(ctx),
+                static_cast<float*>(out), w, batch, t_in, t_out, d, ctx_dim,
+                hidden, layers, rows, static_cast<const float*>(h0),
+                static_cast<const float*>(c0));
+}
+
 extern "C" {
 
 // Each function launches its kernel on `stream` and returns
 // cudaGetLastError() (0 = ok). The pointer arrays hold `layers` device
 // pointers each; `rows` is the batch rows per block (a multiple of TR), so
-// the block has (rows / TR) * (hidden / TJ) threads.
+// the block has (rows / TR) * (hidden / TJ) threads. With `bf16` set, the
+// weight matrices (W, proj_w) are bf16 and the products run in the bf16
+// compute tier; biases, activations and outputs are f32 in both tiers.
 
 // (2 * layers * hidden + d + ctx_dim) * rows floats of dynamic shared
 // memory. ctx is null when ctx_dim == 0; the decoder's layer-0 W is then
 // (d + hidden, 4 * hidden), else (d + ctx_dim + hidden, 4 * hidden). ctx is
 // (batch, ctx_dim), or, with step_ctx, (batch, t_out, ctx_dim): the
 // lockstep-peer tier's per-step context.
-int fused_serve_f32(const void* past, const void* ctx, void* out,
-                    const void* const* w_enc, const void* const* b_enc,
-                    const void* const* w_dec, const void* const* b_dec,
-                    const void* proj_w, const void* proj_b, int batch,
-                    int t_in, int t_out, int d, int ctx_dim, int hidden,
-                    int layers, int rows, int step_ctx, void* stream) {
+int fused_serve_launch(const void* past, const void* ctx, void* out,
+                       const void* const* w_enc, const void* const* b_enc,
+                       const void* const* w_dec, const void* const* b_dec,
+                       const void* proj_w, const void* proj_b, int batch,
+                       int t_in, int t_out, int d, int ctx_dim, int hidden,
+                       int layers, int rows, int step_ctx, int bf16,
+                       void* stream) {
   if (bad_shape(batch, t_in, d, hidden, layers, rows) || t_out < 1 ||
       ctx_dim < 0 || (ctx_dim > 0) != (ctx != nullptr) ||
       (step_ctx && ctx_dim == 0))
     return (int)cudaErrorInvalidValue;
-  Weights w;
-  for (int l = 0; l < MAX_LAYERS; ++l) {
-    const bool on = l < layers;
-    w.w_enc[l] = on ? static_cast<const float*>(w_enc[l]) : nullptr;
-    w.b_enc[l] = on ? static_cast<const float*>(b_enc[l]) : nullptr;
-    w.w_dec[l] = on ? static_cast<const float*>(w_dec[l]) : nullptr;
-    w.b_dec[l] = on ? static_cast<const float*>(b_dec[l]) : nullptr;
-  }
-  w.proj_w = static_cast<const float*>(proj_w);
-  w.proj_b = static_cast<const float*>(proj_b);
-  const size_t smem =
-      ((size_t)2 * layers * hidden + d + ctx_dim) * rows * sizeof(float);
-  auto kernel = step_ctx ? fused_serve_kernel<true> : fused_serve_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = (rows / TR) * (hidden / TJ);
-  const int grid = (batch + rows - 1) / rows;
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(past), static_cast<const float*>(ctx),
-      static_cast<float*>(out), w, batch, t_in, t_out, d, ctx_dim, hidden,
-      layers, rows, nullptr, nullptr);
-  return (int)cudaGetLastError();
+#define SERVE(STEP, CT)                                                       \
+  launch_serve<STEP, CT>(past, ctx, out,                                      \
+                         weights<CT>(w_enc, b_enc, w_dec, b_dec, proj_w,      \
+                                     proj_b, layers),                         \
+                         batch, t_in, t_out, d, ctx_dim, hidden, layers, rows, \
+                         nullptr, nullptr, stream)
+  if (bf16) return step_ctx ? SERVE(true, __nv_bfloat16) : SERVE(false, __nv_bfloat16);
+  return step_ctx ? SERVE(true, float) : SERVE(false, float);
+#undef SERVE
 }
 
 // The peer context of the lockstep tier: pxs (batch·n_peers, t_len, d), pwt
@@ -517,58 +582,49 @@ int fused_serve_f32(const void* past, const void* ctx, void* out,
 // t_len, ctx_dim). rows_v viewers a block: rows_v·n_peers rows (a multiple of
 // 8), (rows_v·n_peers / 8)·(ctx_dim / 4) threads and (2·ctx_dim + d + 1)·
 // rows_v·n_peers floats of dynamic shared memory.
-int peer_context_f32(const void* pxs, const void* pwt, void* ctx,
-                     const void* w, const void* b, int batch, int n_peers,
-                     int t_len, int d, int ctx_dim, int rows_v, void* stream) {
+int peer_context_launch(const void* pxs, const void* pwt, void* ctx,
+                        const void* w, const void* b, int batch, int n_peers,
+                        int t_len, int d, int ctx_dim, int rows_v, int bf16,
+                        void* stream) {
   const int rows = rows_v * n_peers;
   if (n_peers < 1 || rows_v < 1 ||
       bad_shape(batch * n_peers, t_len, d, ctx_dim, 1, rows) ||
       (long long)batch * n_peers * t_len >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  Weights wts = {};
-  wts.w_enc[0] = static_cast<const float*>(w);
-  wts.b_enc[0] = static_cast<const float*>(b);
   const size_t smem = ((size_t)2 * ctx_dim + d + 1) * rows * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      peer_context_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = (rows / TR) * (ctx_dim / TJ);
-  const int grid = (batch + rows_v - 1) / rows_v;
-  peer_context_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pxs), static_cast<const float*>(pwt),
-      static_cast<float*>(ctx), wts, batch, n_peers, t_len, d, ctx_dim, rows_v);
-  return (int)cudaGetLastError();
+  const int grid = (batch + rows_v - 1) / rows_v, threads = (rows / TR) * (ctx_dim / TJ);
+#define PEERS(CT)                                                              \
+  launch(peer_context_kernel<CT>, grid, threads, smem, stream,                 \
+         static_cast<const float*>(pxs), static_cast<const float*>(pwt),       \
+         static_cast<float*>(ctx),                                             \
+         weights<CT>(&w, &b, nullptr, nullptr, nullptr, nullptr, 1), batch,    \
+         n_peers, t_len, d, ctx_dim, rows_v)
+  return bf16 ? PEERS(__nv_bfloat16) : PEERS(float);
+#undef PEERS
 }
 
 // (2 * layers * hidden + d) * rows floats of dynamic shared memory; out is
 // (batch, hidden).
-int fused_encode_f32(const void* xs, void* out, const void* const* w,
-                     const void* const* b, int batch, int t_len, int d,
-                     int hidden, int layers, int rows, void* stream) {
+int fused_encode_launch(const void* xs, void* out, const void* const* w,
+                        const void* const* b, int batch, int t_len, int d,
+                        int hidden, int layers, int rows, int bf16,
+                        void* stream) {
   if (bad_shape(batch, t_len, d, hidden, layers, rows))
     return (int)cudaErrorInvalidValue;
-  Weights wts = {};
-  for (int l = 0; l < layers; ++l) {
-    wts.w_enc[l] = static_cast<const float*>(w[l]);
-    wts.b_enc[l] = static_cast<const float*>(b[l]);
-  }
   const size_t smem = ((size_t)2 * layers * hidden + d) * rows * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = (rows / TR) * (hidden / TJ);
-  const int grid = (batch + rows - 1) / rows;
-  fused_encode_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xs), static_cast<float*>(out), wts, batch,
-      t_len, d, hidden, layers, rows);
-  return (int)cudaGetLastError();
+  const int grid = (batch + rows - 1) / rows, threads = (rows / TR) * (hidden / TJ);
+#define ENCODE(CT)                                                             \
+  launch(fused_encode_kernel<CT>, grid, threads, smem, stream,                 \
+         static_cast<const float*>(xs), static_cast<float*>(out),              \
+         weights<CT>(w, b, nullptr, nullptr, nullptr, nullptr, layers), batch, \
+         t_len, d, hidden, layers, rows)
+  return bf16 ? ENCODE(__nv_bfloat16) : ENCODE(float);
+#undef ENCODE
 }
 
-// The decoder alone: h0, c0 (layers, batch, hidden), y0 (batch, d), ctx
-// (batch, ctx_dim) or null when ctx_dim == 0, out (batch, t_out, d); the
-// decoder's weights as in fused_serve_f32. (2 * layers * hidden + d +
+// The decoder alone, in f32: h0, c0 (layers, batch, hidden), y0 (batch, d),
+// ctx (batch, ctx_dim) or null when ctx_dim == 0, out (batch, t_out, d); the
+// decoder's weights as in fused_serve_launch. (2 * layers * hidden + d +
 // ctx_dim) * rows floats of dynamic shared memory.
 int fused_decode_f32(const void* h0, const void* c0, const void* y0,
                      const void* ctx, void* out, const void* const* w_dec,
@@ -579,50 +635,32 @@ int fused_decode_f32(const void* h0, const void* c0, const void* y0,
   if (bad_shape(batch, t_out, d, hidden, layers, rows) || ctx_dim < 0 ||
       (ctx_dim > 0) != (ctx != nullptr))
     return (int)cudaErrorInvalidValue;
-  Weights w = {};
-  for (int l = 0; l < layers; ++l) {
-    w.w_dec[l] = static_cast<const float*>(w_dec[l]);
-    w.b_dec[l] = static_cast<const float*>(b_dec[l]);
-  }
-  w.proj_w = static_cast<const float*>(proj_w);
-  w.proj_b = static_cast<const float*>(proj_b);
-  const size_t smem =
-      ((size_t)2 * layers * hidden + d + ctx_dim) * rows * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_serve_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = (rows / TR) * (hidden / TJ);
-  const int grid = (batch + rows - 1) / rows;
   // y0 is the kernel's past of one step
-  fused_serve_kernel<false><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y0), static_cast<const float*>(ctx),
-      static_cast<float*>(out), w, batch, 1, t_out, d, ctx_dim, hidden,
-      layers, rows, static_cast<const float*>(h0), static_cast<const float*>(c0));
-  return (int)cudaGetLastError();
+  return launch_serve<false, float>(
+      y0, ctx, out,
+      weights<float>(nullptr, nullptr, w_dec, b_dec, proj_w, proj_b, layers),
+      batch, 1, t_out, d, ctx_dim, hidden, layers, rows, h0, c0, stream);
 }
 
 // One LSTM step: x (batch, d_in), h and c (batch, hidden), w (d_in + hidden,
-// 4 * hidden), b (4 * hidden,) → h_out, c_out (batch, hidden). (2 * hidden +
-// d_in) * rows floats of dynamic shared memory.
-int lstm_cell_f32(const void* x, const void* h, const void* c, const void* w,
-                  const void* b, void* h_out, void* c_out, int batch, int d_in,
-                  int hidden, int rows, void* stream) {
+// 4 * hidden), b (4 * hidden,) → h_out, c_out (batch, hidden), every tensor
+// f32, or with `bf16` every tensor bf16. (2 * hidden + d_in) * rows floats of
+// dynamic shared memory.
+int lstm_cell_launch(const void* x, const void* h, const void* c, const void* w,
+                     const void* b, void* h_out, void* c_out, int batch,
+                     int d_in, int hidden, int rows, int bf16, void* stream) {
   if (bad_shape(batch, 1, d_in, hidden, 1, rows))
     return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)2 * hidden + d_in) * rows * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = (rows / TR) * (hidden / TJ);
-  const int grid = (batch + rows - 1) / rows;
-  lstm_cell_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(h),
-      static_cast<const float*>(c), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<float*>(h_out),
-      static_cast<float*>(c_out), batch, d_in, hidden, rows);
-  return (int)cudaGetLastError();
+  const int grid = (batch + rows - 1) / rows, threads = (rows / TR) * (hidden / TJ);
+#define CELL(ST)                                                               \
+  launch(lstm_cell_kernel<ST>, grid, threads, smem, stream,                    \
+         static_cast<const ST*>(x), static_cast<const ST*>(h),                 \
+         static_cast<const ST*>(c), static_cast<const ST*>(w),                 \
+         static_cast<const ST*>(b), static_cast<ST*>(h_out),                   \
+         static_cast<ST*>(c_out), batch, d_in, hidden, rows)
+  return bf16 ? CELL(__nv_bfloat16) : CELL(float);
+#undef CELL
 }
 
 const char* fused_serve_error_string(int code) {

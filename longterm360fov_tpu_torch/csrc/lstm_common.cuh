@@ -3,14 +3,10 @@
 // f32 or bf16:
 //   * Res<RT>, the residual type (f32, or bf16 rounded to nearest even as
 //     torch and XLA cast);
-//   * the compute type CT: float, exact f32 products; __nv_bfloat16, the
-//     bf16-compute tier of the TPU kernels (compute_dtype=bfloat16): both
-//     operands of every product are rounded to bf16 and the products summed
-//     in f32. Weights arrive in CT, rounded once per call by the wrapper
-//     (half the bytes of f32 from L2); an activation (h, x, dgates, dy) is
-//     kept in f32 and rounded where it enters a product (cround). Carries,
-//     gates, the cell update, residual stores and the sums db, dproj_b stay
-//     f32;
+//   * the compute type CT of compute_type.cuh (cround, ldw4, ldw1): an
+//     activation (h, x, dgates, dy) is kept in f32 and rounded where it
+//     enters a product. Carries, gates, the cell update, residual stores and
+//     the sums db, dproj_b stay f32;
 //   * the thread tile: TR = 4 batch rows x TJ = 4 hidden units per thread,
 //     a layer input held k-major (K, R) in shared memory, and accumulate<NG>,
 //     the FMA loop that reads W rows with 16-byte loads;
@@ -31,7 +27,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
+#include "compute_type.cuh"
 
 #define MAX_LAYERS 8
 #define TR 4        // batch rows per thread
@@ -93,45 +89,6 @@ using F = Res<float>;
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
-}
-
-// ---------------------------------------------------------------------------
-// compute type: x as a product operand of the CT tier
-// ---------------------------------------------------------------------------
-
-template <typename CT>
-__device__ __forceinline__ float cround(float x) {
-  if constexpr (std::is_same<CT, float>::value)
-    return x;
-  else
-    return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// weights through the read-only path: 4 consecutive (one 16-byte load in
-// f32, one 8-byte load in bf16), and one
-__device__ __forceinline__ void ldw4(const float* p, float (&w)[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  w[0] = v.x;
-  w[1] = v.y;
-  w[2] = v.z;
-  w[3] = v.w;
-}
-
-__device__ __forceinline__ void ldw4(const __nv_bfloat16* p, float (&w)[4]) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  w[0] = lo.x;
-  w[1] = lo.y;
-  w[2] = hi.x;
-  w[3] = hi.y;
-}
-
-__device__ __forceinline__ float ldw1(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float ldw1(const __nv_bfloat16* p) {
-  return __bfloat162float(
-      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
 }
 
 // acc[g][r][j] += sum_{k<K} z[k][r0 + r] * W[k][g * goff + j0 + j].

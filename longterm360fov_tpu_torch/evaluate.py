@@ -5,7 +5,8 @@ autoregressively and report the mean great-circle error in degrees per
 future step. :func:`evaluate` decodes through ``infer.predict_xyz`` with an
 explicit ``impl``: ``"fused"`` is the family's ``serve_fused`` (its serving
 kernels on the card, their plain versions on the CPU), ``"plain"`` the step
-loop.
+loop, in the params' dtype: the impl of a bf16 model's in-loop evaluation,
+as JAX's ``infer.predict_batch`` decodes it (``train.eval_impl``).
 """
 
 from __future__ import annotations

@@ -46,14 +46,18 @@ def init_lstm(
 
 
 def lstm_cell(
-    params: LSTMParams, x: torch.Tensor, state: LSTMState
+    params: LSTMParams, x: torch.Tensor, state: LSTMState,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> LSTMState:
     """One LSTM step. x: (B, D), state: ((B, H), (B, H)) → new state.
 
     Gates and cell update run in f32 whatever the parameter dtype, as the
-    JAX cell's ``preferred_element_type=float32`` product does."""
+    JAX cell's ``preferred_element_type=float32`` product does; h and c
+    come back in their own dtypes. ``compute_dtype`` bf16 rounds both
+    operands of the gate product (:func:`mm`), the serving kernels' bf16
+    tier."""
     h, c = state
-    gates = torch.cat([x, h], dim=-1).float() @ params.w.float() + params.b.float()
+    gates = mm(torch.cat([x, h], dim=-1).float(), params.w.float(), compute_dtype) + params.b.float()
     i, f, g, o = gates.chunk(4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
@@ -62,14 +66,16 @@ def lstm_cell(
 
 def round_to(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """``x`` rounded to ``compute_dtype`` and held in f32: the bf16 tier's
-    rounding of a product operand; f32 leaves it as it is."""
-    return x if compute_dtype == torch.float32 else x.to(compute_dtype).float()
+    rounding of a product operand; f32 widens a bf16 ``x`` (exactly) and
+    leaves an f32 one as it is."""
+    return x.float() if compute_dtype == torch.float32 else x.to(compute_dtype).float()
 
 
 def mm(x: torch.Tensor, w: torch.Tensor, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``x @ w``; in the bf16 tier both operands rounded to bf16 and the
-    product in f32 (each term exact, the sum in f32), as the JAX tiers' bf16
-    dot with ``preferred_element_type=float32``."""
+    """``x @ w`` → f32; in the bf16 tier both operands rounded to bf16 and
+    the product in f32 (each term exact, the sum in f32), as the JAX tiers'
+    bf16 dot with ``preferred_element_type=float32``. In f32 a bf16 operand
+    (a ``--bf16`` model's weight) is widened, as JAX's dot promotes it."""
     return round_to(x, compute_dtype) @ round_to(w, compute_dtype)
 
 

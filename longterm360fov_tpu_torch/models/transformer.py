@@ -158,11 +158,18 @@ def _mlp(p, x, compute_dtype=torch.float32):
     return _mm(u, p["w2"], compute_dtype) + p["b2"]
 
 
+def _in_proj(params, cfg, x, compute_dtype=torch.float32):
+    """``x @ in_proj`` in the model's dtype: JAX's dot without
+    ``preferred_element_type`` returns its operands' type, so a bf16 model's
+    token embeddings are rounded to bf16 (before the f32 positions are
+    added)."""
+    return _mm(x.to(cfg.dtype), params["in_proj"], compute_dtype).to(cfg.dtype)
+
+
 def _encode(params, cfg, past_n, compute_dtype=torch.float32):
     """The encoder stack over (B, T, D) → enc_mem (B, T, H); in the bf16
     ``compute_dtype`` the plain version of the encoder kernel's bf16 tier."""
-    x = _mm(past_n.to(cfg.dtype), params["in_proj"], compute_dtype) + _pos_enc(
-        past_n.shape[1], cfg.hidden, device=past_n.device)
+    x = _in_proj(params, cfg, past_n, compute_dtype) + _pos_enc(past_n.shape[1], cfg.hidden, device=past_n.device)
     for layer in params["enc"]:
         h = _ln(layer["ln1"], x)
         x = x + _attention(layer["attn"], h, h, compute_dtype=compute_dtype)
@@ -176,7 +183,7 @@ def _peer_tokens(params, cfg, other_future_n, other_mask):
     (B, T, H), the K peers masked-mean pooled per step (``denom = max(Σ
     mask, 1)``, valid where any peer is)."""
     b, k, t, _ = other_future_n.shape
-    x = other_future_n.to(cfg.dtype) @ params["in_proj"] + _pos_enc(
+    x = _in_proj(params, cfg, other_future_n) + _pos_enc(
         t, cfg.hidden, device=other_future_n.device)[None, None]
     dev = other_future_n.device
     if cfg.peer_pool == "mean":
@@ -268,14 +275,14 @@ def _parallel_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0, future_n, *
                      teacher_prob=1.0):
     t = future_n.shape[1]
     dev = future_n.device
-    x = teacher_tokens(cfg, y0, future_n, rng, teacher_prob) @ params["in_proj"] + _pos_enc(
+    x = _in_proj(params, cfg, teacher_tokens(cfg, y0, future_n, rng, teacher_prob)) + _pos_enc(
         t, cfg.hidden, device=dev)
     causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=dev))[None]
     tmask = None if peer_mem is None else _peer_window_mask(cfg, peer_mem.shape[1], tq=t, device=dev)
     for layer in params["dec"]:
         x = _decoder_block(layer, x, enc_mem, peer_mem, peer_valid, causal_mask=causal, peer_tmask=tmask)
     x = _ln(params["final_ln"], x)
-    return (x @ params["out_proj"]["w"] + params["out_proj"]["b"]).float()
+    return (_mm(x, params["out_proj"]["w"]) + params["out_proj"]["b"]).float()
 
 
 def _ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0, *, peer_gid=None, peer_dv=None,
@@ -295,11 +302,13 @@ def _ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0, *, peer_gid=None,
 
     In the bf16 ``compute_dtype``, the plain version of the decode kernel's
     bf16 tier: the products' operands rounded (:func:`_mm`), the cross, peer
-    and self K/V rounded as stored, the rest f32."""
+    and self K/V rounded as stored, the rest f32. A bf16 model keeps its
+    self caches in bf16 and feeds back a bf16 y, as JAX's decode."""
     cd = compute_dtype
 
-    def kv_of(mem, w):  # the K or V of a memory, as stored
-        return _split_heads(_round(_mm(mem, w, cd), cd))
+    def kv_of(mem, w, cache=False):  # the K or V of a memory, as stored
+        kv = _round(_mm(mem, w, cd), cd)
+        return _split_heads(kv.to(cfg.dtype).float() if cache else kv)
 
     kv = []
     for layer in params["dec"]:
@@ -318,14 +327,14 @@ def _ar_decode(params, cfg, enc_mem, peer_mem, peer_valid, y0, *, peer_gid=None,
     caches = [([], []) for _ in params["dec"]]
     y, ys = y0, []
     for t in range(cfg.h_out):
-        x = (_mm(y, params["in_proj"], cd) + pos_all[t])[:, None, :]
+        x = (_in_proj(params, cfg, y, cd) + pos_all[t])[:, None, :]
         tmask = None
         if peer_mem is not None and cfg.peer_window > 0:
             tmask = _peer_window_mask(cfg, peer_mem.shape[1], t=t, device=y0.device)[None, :]
         for l, (layer, (ck, cv, pk, pv), (ks, vs)) in enumerate(zip(params["dec"], kv, caches)):
             h_in = _ln(layer["ln1"], x)
-            ks.append(kv_of(h_in, layer["self_attn"]["wk"]))
-            vs.append(kv_of(h_in, layer["self_attn"]["wv"]))
+            ks.append(kv_of(h_in, layer["self_attn"]["wk"], cache=True))
+            vs.append(kv_of(h_in, layer["self_attn"]["wv"], cache=True))
             x = _decoder_block(
                 layer, x, enc_mem, peer_mem, peer_valid, causal_mask=None,
                 self_kv=(torch.cat(ks, dim=2), torch.cat(vs, dim=2)), cross_kv=(ck, cv),
@@ -375,11 +384,13 @@ def _decode(params, cfg, enc_mem, past_n, future_n, rng, teacher_prob, other_fut
 def _train_encoder(params, cfg, past_n):
     """The training encoder of the fused hooks: ``fused_encode_train`` (its
     kernels on the card, autograd through ``_encode`` on the CPU) where
-    ``encode_kernel_fits``, else ``_encode``, as the serving path routes."""
+    ``encode_kernel_fits``, else ``_encode``, as the serving path routes. A
+    bf16 model (``--bf16``) trains through ``_encode`` in bf16: the kernels
+    are f32 only, and JAX runs no kernel in this step at all."""
     from ..ops.transformer_encode import encode_kernel_fits
     from ..ops.transformer_encode_train import fused_encode_train
 
-    if encode_kernel_fits(past_n.shape[1]):
+    if cfg.dtype == torch.float32 and encode_kernel_fits(past_n.shape[1]):
         return fused_encode_train(params, cfg, past_n.float().contiguous())
     return _encode(params, cfg, past_n)
 

@@ -4,7 +4,7 @@ hand-written CUDA kernels and their plain PyTorch versions.
 Twins of ``longterm360fov_tpu.ops.fused_lstm``:
 
 * :func:`fused_serve`, in its no-context, static-context and lockstep-peer
-  f32 tiers: the L-layer encoder over the past window, then the T_out-step
+  tiers, each in f32 and in the bf16 compute tier: the L-layer encoder over the past window, then the T_out-step
   autoregressive decoder with projection and feedback; with a ``context``
   (B, C) the decoder's layer-0 input is ``[y, ctx]``, with peers
   (:func:`fused_serve_peers`) ``[y, ctx_t]``, where ctx_t is the
@@ -16,7 +16,18 @@ Twins of ``longterm360fov_tpu.ops.fused_lstm``:
   ``h0, c0`` (L, B, H) and first input ``y0`` (B, D), with an optional
   static context (``seq2seq.decode_fused``);
 * :func:`fused_lstm_cell`: one LSTM step, ``(params, x, (h, c)) → (h, c)``,
-  the cell of ``cfg.cell == "pallas"`` (``models.cell.get_cell_fn``).
+  the cell of ``cfg.cell == "pallas"`` (``models.cell.get_cell_fn``), on
+  f32 tensors or, on a bf16 model, bf16 ones.
+
+``compute_dtype=torch.bfloat16`` (``fused_serve``, ``peer_context``,
+``fused_encode``) is the JAX bf16 tier: W and ``proj_w`` are rounded to bf16
+once per call, and every activation that enters a product (the inputs, the
+stored h of every layer, the context, the fed-back y, the peers' inputs and
+h) is rounded where it enters it; c, the gate sums, the biases, the lockstep
+context ``ctx_t`` (summed from the unrounded peer h) and the written y stay
+f32, and ``fused_encode`` returns the rounded top-layer h. Weights stored in
+bf16 (a ``--bf16`` model) are widened to f32 for the f32 tier, which is
+exact, as JAX's f32 dot widens them.
 
 The kernels live in ``csrc/fused_serve.cu``, whose header says what bounds
 them on Hopper and what their design does about that. Each wrapper runs its
@@ -24,9 +35,10 @@ plain version (:func:`fused_serve_reference`, :func:`peer_context_reference`,
 :func:`fused_encode_reference`, :func:`fused_decode_reference`, and
 ``models.cell.lstm_cell`` for the cell) on CPU tensors, and launches its
 kernel on CUDA tensors or raises. It never falls back. ``.launches`` counts
-each wrapper's kernel launches: ``fused_serve`` those of the no-context and
-static-context tiers, ``fused_serve_peers`` and ``peer_context`` the two of
-the lockstep tier. The TPU's cell and decode kernels have no VJP, so
+each wrapper's kernel launches (``.launches_bf16`` those of the bf16 tier
+and of the cell on bf16 tensors): ``fused_serve`` those of the no-context
+and static-context tiers, ``fused_serve_peers`` and ``peer_context`` the two
+of the lockstep tier. The TPU's cell and decode kernels have no VJP, so
 :func:`fused_lstm_cell` and :func:`fused_decode` raise on an input that
 requires grad, on both devices (:func:`refuse_grad`).
 """
@@ -40,8 +52,9 @@ from typing import Sequence
 
 import torch
 
-from ..models.cell import LSTMParams, lstm_cell
+from ..models.cell import LSTMParams, lstm_cell, mm, round_to
 from . import _build
+from .lstm_train import COMPUTE_DTYPES, check_compute, count_launch
 
 __all__ = [
     "fused_serve",
@@ -92,6 +105,7 @@ def fused_serve_reference(
     peer_params=None,
     peer_xs=None,
     peer_w=None,
+    compute_dtype=torch.float32,
 ) -> torch.Tensor:
     """Plain PyTorch version of the serve kernels: (B, T_in, D) normalized
     past, and optionally a context, (B, C) or per step (B, t_out, C), or the
@@ -100,19 +114,24 @@ def fused_serve_reference(
     (``peer_params``, from zero state) one step on ``peer_xs``
     (B, K, t_out, D); their mask-weighted mean
     ``ctx_t = Σ_k peer_w[:, k] · h_k,t``, summed in the order k = 0 .. K - 1,
-    is that step's context. On the card it needs exact f32 products
+    is that step's context. ``compute_dtype`` bf16 rounds every product's
+    operands (``models.cell.mm``): the inputs, every stored h, the context,
+    the fed-back y, the peers' inputs and h, W and ``proj_w``; c, ctx_t and
+    y stay f32. On the card it needs exact f32 products
     (:func:`exact_f32_matmul`) and raises under TF32."""
     _no_tf32(past_n, "fused_serve_reference")
-    peers = None if peer_xs is None else _PeerSteps(peer_params, peer_xs, peer_w)
-    return _decode_steps(dec_params, proj_w, proj_b, _encode_states(enc_params, past_n), past_n[:, -1], t_out,
-                         context, peers)
+    cd = compute_dtype
+    peers = None if peer_xs is None else _PeerSteps(peer_params, peer_xs, peer_w, cd)
+    return _decode_steps(dec_params, proj_w, proj_b, _encode_states(enc_params, past_n, cd), past_n[:, -1],
+                         t_out, context, peers, cd)
 
 
-def _decode_steps(dec_params, proj_w, proj_b, states, y, t_out, context, peers=None):
+def _decode_steps(dec_params, proj_w, proj_b, states, y, t_out, context, peers=None,
+                  compute_dtype=torch.float32):
     """The decoder loop of the serve and decode kernels' plain versions, from
     ``states`` (an (h, c) a layer) and the first input ``y``: per step the
     layers on ``[y, ctx]``, then ``y = h_top @ proj_w + proj_b``, fed back
-    → (B, t_out, D)."""
+    → (B, t_out, D); the products in ``compute_dtype``."""
     ys = []
     for t in range(t_out):
         ctx = peers.step(t) if peers is not None else context
@@ -120,9 +139,9 @@ def _decode_steps(dec_params, proj_w, proj_b, states, y, t_out, context, peers=N
             ctx = ctx[:, t]
         inp = y if ctx is None else torch.cat([y, ctx], dim=-1)
         for l, p in enumerate(dec_params):
-            states[l] = lstm_cell(p, inp, states[l])
+            states[l] = lstm_cell(p, inp, states[l], compute_dtype)
             inp = states[l][0]
-        y = inp @ proj_w + proj_b
+        y = mm(inp, proj_w.float(), compute_dtype) + proj_b.float()
         ys.append(y)
     return torch.stack(ys, dim=1)
 
@@ -139,18 +158,20 @@ def fused_decode_reference(dec_params: Sequence[LSTMParams], proj_w: torch.Tenso
 
 class _PeerSteps:
     """The lockstep peer encoders, one step at a time: K cells over the
-    (B·K) rows of ``peer_xs`` (B, K, T, D), from zero state; ``step(t)``
-    advances them and returns ctx_t (B, C)."""
+    (B·K) rows of ``peer_xs`` (B, K, T, D), from zero state, their products
+    in ``compute_dtype``; ``step(t)`` advances them and returns ctx_t (B, C),
+    summed from the unrounded h."""
 
-    def __init__(self, params: LSTMParams, peer_xs: torch.Tensor, peer_w: torch.Tensor):
+    def __init__(self, params: LSTMParams, peer_xs: torch.Tensor, peer_w: torch.Tensor,
+                 compute_dtype=torch.float32):
         b, k, t, d = peer_xs.shape
-        self.params, self.w, self.k = params, peer_w, k
+        self.params, self.w, self.k, self.cd = params, peer_w, k, compute_dtype
         self.xs = peer_xs.reshape(b * k, t, d)
         zero = peer_xs.new_zeros((b * k, params.w.shape[1] // 4))
         self.state = (zero, zero)
 
     def step(self, t: int) -> torch.Tensor:
-        self.state = lstm_cell(self.params, self.xs[:, t], self.state)
+        self.state = lstm_cell(self.params, self.xs[:, t], self.state, self.cd)
         h = self.state[0].reshape(self.w.shape[0], self.k, -1)
         ctx = torch.zeros_like(h[:, 0])
         for k in range(self.k):
@@ -159,11 +180,12 @@ class _PeerSteps:
 
 
 def peer_context_reference(peer_params: LSTMParams, peer_xs: torch.Tensor,
-                           peer_w: torch.Tensor) -> torch.Tensor:
+                           peer_w: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
     """Plain version of the peer-context kernel: the lockstep peer encoders
-    over ``peer_xs`` (B, K, T, D) → ctx (B, T, C), step by step."""
+    over ``peer_xs`` (B, K, T, D) → ctx (B, T, C) f32, step by step, the
+    products in ``compute_dtype``."""
     _no_tf32(peer_xs, "peer_context_reference")
-    peers = _PeerSteps(peer_params, peer_xs, peer_w)
+    peers = _PeerSteps(peer_params, peer_xs, peer_w, compute_dtype)
     return torch.stack([peers.step(t) for t in range(peer_xs.shape[2])], dim=1)
 
 
@@ -181,24 +203,26 @@ def refuse_grad(tensors, name: str, instead: str = "models.transformer.apply"):
         )
 
 
-def _encode_states(params: Sequence[LSTMParams], xs: torch.Tensor):
+def _encode_states(params: Sequence[LSTMParams], xs: torch.Tensor, compute_dtype=torch.float32):
     """The stacked LSTM over xs (B, T, D) from zero state → final (h, c) per
-    layer, step by step."""
+    layer, step by step, the products in ``compute_dtype``."""
     zero = xs.new_zeros((xs.shape[0], params[0].w.shape[1] // 4))
     states = [(zero, zero) for _ in params]
     for t in range(xs.shape[1]):
         inp = xs[:, t]
         for l, p in enumerate(params):
-            states[l] = lstm_cell(p, inp, states[l])
+            states[l] = lstm_cell(p, inp, states[l], compute_dtype)
             inp = states[l][0]
     return states
 
 
-def fused_encode_reference(params: Sequence[LSTMParams], xs: torch.Tensor) -> torch.Tensor:
+def fused_encode_reference(params: Sequence[LSTMParams], xs: torch.Tensor,
+                           compute_dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of the encode kernel: (B, T, D) → the final
-    top-layer h (B, H), step by step."""
+    top-layer h (B, H) f32, step by step; in the bf16 ``compute_dtype`` the
+    products round their operands and the h returned is rounded too."""
     _no_tf32(xs, "fused_encode_reference")
-    return _encode_states(params, xs)[-1][0]
+    return round_to(_encode_states(params, xs, compute_dtype)[-1][0], compute_dtype)
 
 
 def kernel_rows(hidden: int, layers: int, d: int, ctx_dim: int = 0) -> int:
@@ -226,13 +250,12 @@ def _check_tensors(expect, device):
     for t, shape in expect:
         if tuple(t.shape) != shape:
             raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the f32 tier takes float32 tensors, got {t.dtype}")
+        if t.dtype not in COMPUTE_DTYPES:
+            raise TypeError(f"the kernels take float32 or bfloat16 tensors, got {t.dtype}")
         if t.device != device:
             raise ValueError(f"tensors on {t.device} and {device}")
         if not t.is_contiguous():
             raise ValueError(f"tensor of shape {shape} is not contiguous")
-    return [t for t, _ in expect]
 
 
 def _check(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context):
@@ -258,7 +281,19 @@ def _check(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context):
     expect += [(proj_w, (hidden, d)), (proj_b, (d,)), (past_n, (batch, t_in, d))]
     if context is not None:
         expect.append((context, (batch, ctx_dim)))
-    return _check_tensors(expect, past_n.device)
+    _check_tensors(expect, past_n.device)
+
+
+def _f32(t):
+    """An activation or a bias as the kernels read it: f32 (a bf16 value
+    widens exactly)."""
+    return None if t is None else t.float().contiguous()
+
+
+def _in_tier(params: Sequence[LSTMParams], compute_dtype) -> list:
+    """The layers as a kernel of the ``compute_dtype`` tier reads them: W in
+    that type (bf16: rounded once per call; f32: a bf16 W widened), b f32."""
+    return [LSTMParams(p.w.to(compute_dtype).contiguous(), _f32(p.b)) for p in params]
 
 
 def fused_serve(
@@ -285,43 +320,39 @@ def fused_serve(
     ``[y, ctx]``; or the lockstep peer tier, ``peer_params`` (the shared
     peer-encoder cell), ``peer_xs`` (B, K, t_out, D) peer futures and
     ``peer_w`` (B, K) mask weights (``mask / max(Σ mask, 1)``), which
-    :func:`fused_serve_peers` runs. The bf16 ``compute_dtype`` and the
+    :func:`fused_serve_peers` runs. ``compute_dtype`` is f32 or the bf16
+    tier (the module's docstring), any other dtype a TypeError. The
     ``_probe`` modes raise."""
-    if peer_xs is not None:
-        if context is not None:
-            raise ValueError("pass either context or peer_xs, not both")
-        if compute_dtype != torch.float32 or _probe:
-            raise NotImplementedError(
-                "fused_serve: the lockstep tier is ported in exact f32 only, with no "
-                "_probe modes (ROADMAP.md slice I-c, the bf16 tier)"
-            )
-        return fused_serve_peers(enc_params, dec_params, proj_w, proj_b, past_n, t_out,
-                                 peer_params, peer_xs, peer_w)
-    if peer_params is not None or peer_w is not None:
-        raise ValueError("peer_params and peer_w come with peer_xs")
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"fused_serve: only the exact f32 tier is ported, got "
-            f"compute_dtype={compute_dtype} (ROADMAP.md, slice I-c)"
-        )
+    check_compute(compute_dtype)
     if _probe:
         raise NotImplementedError(
             "fused_serve: the roofline _probe modes are not ported"
         )
-    tensors = _check(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context)
-    if not _on_card(past_n, tensors, "fused_serve"):
-        return fused_serve_reference(
-            enc_params, dec_params, proj_w, proj_b, past_n, t_out, context
-        )
-    out = _launch_serve(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context,
-                        step_ctx=False)
-    fused_serve.launches += 1
+    if peer_xs is not None:
+        if context is not None:
+            raise ValueError("pass either context or peer_xs, not both")
+        return fused_serve_peers(enc_params, dec_params, proj_w, proj_b, past_n, t_out,
+                                 peer_params, peer_xs, peer_w, compute_dtype=compute_dtype)
+    if peer_params is not None or peer_w is not None:
+        raise ValueError("peer_params and peer_w come with peer_xs")
+    _check(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context)
+    enc, dec = _in_tier(enc_params, compute_dtype), _in_tier(dec_params, compute_dtype)
+    pw, pb = proj_w.to(compute_dtype).contiguous(), _f32(proj_b)
+    past_n, context = _f32(past_n), _f32(context)
+    tensors = [past_n, context, pw, pb, *[t for p in enc + dec for t in p]]
+    if not _on_card(past_n, [t for t in tensors if t is not None], "fused_serve"):
+        return fused_serve_reference(enc, dec, pw, pb, past_n, t_out, context, compute_dtype=compute_dtype)
+    out = _launch_serve(enc, dec, pw, pb, past_n, t_out, context, step_ctx=False,
+                        compute_dtype=compute_dtype)
+    count_launch(fused_serve, compute_dtype)
     return out
 
 
-def _launch_serve(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context, *, step_ctx):
-    """Launch the serve kernel on checked CUDA tensors: ``context`` None,
-    (B, C), or with ``step_ctx`` (B, t_out, C)."""
+def _launch_serve(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context, *, step_ctx,
+                  compute_dtype):
+    """Launch the serve kernel on checked CUDA tensors of the tier
+    (:func:`_in_tier`): ``context`` None, (B, C), or with ``step_ctx``
+    (B, t_out, C)."""
     batch, t_in, d = past_n.shape
     hidden, layers = proj_w.shape[0], len(enc_params)
     ctx_dim = 0 if context is None else context.shape[-1]
@@ -330,19 +361,19 @@ def _launch_serve(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context
     rows = kernel_rows(hidden, layers, d, ctx_dim)
     out = torch.empty((batch, t_out, d), device=past_n.device, dtype=torch.float32)
     with torch.cuda.device(past_n.device):
-        err = _library().fused_serve_f32(
+        err = _library().fused_serve_launch(
             past_n.data_ptr(), None if context is None else context.data_ptr(), out.data_ptr(),
             _ptrs([p.w for p in enc_params]), _ptrs([p.b for p in enc_params]),
             _ptrs([p.w for p in dec_params]), _ptrs([p.b for p in dec_params]),
             proj_w.data_ptr(), proj_b.data_ptr(),
             batch, t_in, t_out, d, ctx_dim, hidden, layers, rows, int(step_ctx),
-            torch.cuda.current_stream().cuda_stream,
+            int(compute_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "fused_serve")
     return out
 
 
-fused_serve.launches = 0
+fused_serve.launches = fused_serve.launches_bf16 = 0
 
 
 def peer_rows(ctx_dim: int, n_peers: int, *, tile_rows: int = _TR) -> int:
@@ -370,36 +401,39 @@ def peer_rows(ctx_dim: int, n_peers: int, *, tile_rows: int = _TR) -> int:
 
 
 def peer_context(peer_params: LSTMParams, peer_xs: torch.Tensor,
-                 peer_w: torch.Tensor) -> torch.Tensor:
+                 peer_w: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
     """The lockstep tier's peer encoders in one kernel launch: the shared
     cell over the peer futures ``peer_xs`` (B, K, T, D) from zero state, and
     after every step the mask-weighted mean of the K hidden states →
-    ctx (B, T, C) f32."""
+    ctx (B, T, C) f32, summed from the unrounded h in both tiers; the
+    products in ``compute_dtype``."""
+    check_compute(compute_dtype)
     if peer_xs.dim() != 4 or min(peer_xs.shape) < 1:
         raise ValueError(f"peer_xs must be a non-empty (B, K, T, D), got {tuple(peer_xs.shape)}")
     batch, k, t_len, d = peer_xs.shape
     c = peer_params.w.shape[1] // 4
-    tensors = _check_tensors([(peer_xs, (batch, k, t_len, d)), (peer_w, (batch, k)),
-                              (peer_params.w, (d + c, 4 * c)), (peer_params.b, (4 * c,))],
-                             peer_xs.device)
-    if not _on_card(peer_xs, tensors, "peer_context"):
-        return peer_context_reference(peer_params, peer_xs, peer_w)
+    _check_tensors([(peer_xs, (batch, k, t_len, d)), (peer_w, (batch, k)),
+                    (peer_params.w, (d + c, 4 * c)), (peer_params.b, (4 * c,))], peer_xs.device)
+    (peer_params,), peer_xs, peer_w = _in_tier([peer_params], compute_dtype), _f32(peer_xs), _f32(peer_w)
+    if not _on_card(peer_xs, [peer_xs, peer_w, *peer_params], "peer_context"):
+        return peer_context_reference(peer_params, peer_xs, peer_w, compute_dtype)
     rv = peer_rows(c, k)
     if batch * k * t_len >= 2**31:
         raise ValueError(f"B·K·T = {batch * k * t_len} does not fit the kernel's 32-bit row index")
     out = torch.empty((batch, t_len, c), device=peer_xs.device, dtype=torch.float32)
     with torch.cuda.device(peer_xs.device):
-        err = _library().peer_context_f32(
+        err = _library().peer_context_launch(
             peer_xs.data_ptr(), peer_w.data_ptr(), out.data_ptr(),
             peer_params.w.data_ptr(), peer_params.b.data_ptr(),
-            batch, k, t_len, d, c, rv, torch.cuda.current_stream().cuda_stream,
+            batch, k, t_len, d, c, rv, int(compute_dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "peer_context")
-    peer_context.launches += 1
+    count_launch(peer_context, compute_dtype)
     return out
 
 
-peer_context.launches = 0
+peer_context.launches = peer_context.launches_bf16 = 0
 
 
 def fused_serve_peers(
@@ -412,11 +446,16 @@ def fused_serve_peers(
     peer_params: LSTMParams,
     peer_xs: torch.Tensor,  # (B, K, t_out, D) peer futures
     peer_w: torch.Tensor,  # (B, K) mask weights
+    *,
+    compute_dtype=torch.float32,
 ) -> torch.Tensor:
     """The lockstep-peer tier of :func:`fused_serve` → (B, t_out, D): on the
-    card two launches, :func:`peer_context` (ctx (B, t_out, C)) and the
+    card two launches, :func:`peer_context` (ctx (B, t_out, C), f32) and the
     serve kernel with that per-step context, reloaded every decoder step
-    (``csrc/fused_serve.cu`` says why the tier is split in two)."""
+    (``csrc/fused_serve.cu`` says why the tier is split in two); in the bf16
+    ``compute_dtype`` both kernels' products round their operands, ctx_t
+    where the decoder's product reads it."""
+    check_compute(compute_dtype)
     if peer_params is None or peer_w is None:
         raise ValueError("the lockstep tier needs peer_params, peer_xs and peer_w")
     if peer_xs.dim() != 4 or peer_xs.shape[2] != t_out:
@@ -427,17 +466,20 @@ def fused_serve_peers(
     ctx_dim = peer_params.w.shape[1] // 4
     # the decoder's weights take [y, ctx]: check them against a (B, C) stand-in
     stand_in = torch.empty((past_n.shape[0], ctx_dim), device=past_n.device)
-    tensors = _check(enc_params, dec_params, proj_w, proj_b, past_n, t_out, stand_in)[:-1]
-    if not _on_card(past_n, tensors, "fused_serve_peers"):
-        return fused_serve_reference(enc_params, dec_params, proj_w, proj_b, past_n, t_out,
-                                     peer_params=peer_params, peer_xs=peer_xs, peer_w=peer_w)
-    ctx = peer_context(peer_params, peer_xs, peer_w)
-    out = _launch_serve(enc_params, dec_params, proj_w, proj_b, past_n, t_out, ctx, step_ctx=True)
-    fused_serve_peers.launches += 1
+    _check(enc_params, dec_params, proj_w, proj_b, past_n, t_out, stand_in)
+    enc, dec = _in_tier(enc_params, compute_dtype), _in_tier(dec_params, compute_dtype)
+    pw, pb, past_n = proj_w.to(compute_dtype).contiguous(), _f32(proj_b), _f32(past_n)
+    if not _on_card(past_n, [past_n, pw, pb, *[t for p in enc + dec for t in p]], "fused_serve_peers"):
+        (peer,) = _in_tier([peer_params], compute_dtype)
+        return fused_serve_reference(enc, dec, pw, pb, past_n, t_out, peer_params=peer,
+                                     peer_xs=_f32(peer_xs), peer_w=_f32(peer_w), compute_dtype=compute_dtype)
+    ctx = peer_context(peer_params, peer_xs, peer_w, compute_dtype=compute_dtype)
+    out = _launch_serve(enc, dec, pw, pb, past_n, t_out, ctx, step_ctx=True, compute_dtype=compute_dtype)
+    count_launch(fused_serve_peers, compute_dtype)
     return out
 
 
-fused_serve_peers.launches = 0
+fused_serve_peers.launches = fused_serve_peers.launches_bf16 = 0
 
 
 def fused_encode(
@@ -450,12 +492,9 @@ def fused_encode(
     top-layer hidden state (B, H) f32, in one kernel launch; nothing is
     saved per step (inference only: ``ops.lstm_train.lstm_seq`` is the
     differentiable path). Same shapes and semantics as the JAX
-    ``fused_encode``; its bf16 ``compute_dtype`` raises."""
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"fused_encode: only the exact f32 tier is ported, got "
-            f"compute_dtype={compute_dtype} (ROADMAP.md slice I-c, the bf16 tier)"
-        )
+    ``fused_encode``: in the bf16 ``compute_dtype`` the products round their
+    operands and the h returned is the rounded one, widened to f32."""
+    check_compute(compute_dtype)
     if xs.dim() != 3 or min(xs.shape) < 1 or not params:
         raise ValueError(f"xs must be a non-empty (B, T, D) with >= 1 layer, got {tuple(xs.shape)}")
     batch, t_len, d = xs.shape
@@ -464,25 +503,25 @@ def fused_encode(
     for l, p in enumerate(params):
         in_l = d if l == 0 else hidden
         expect += [(p.w, (in_l + hidden, 4 * hidden)), (p.b, (4 * hidden,))]
-    tensors = _check_tensors(expect, xs.device)
-    if not _on_card(xs, tensors, "fused_encode"):
-        return fused_encode_reference(params, xs)
+    _check_tensors(expect, xs.device)
+    params, xs = _in_tier(params, compute_dtype), _f32(xs)
+    if not _on_card(xs, [xs, *[t for p in params for t in p]], "fused_encode"):
+        return fused_encode_reference(params, xs, compute_dtype)
     rows = kernel_rows(hidden, layers, d)
-    lib = _library()
     out = torch.empty((batch, hidden), device=xs.device, dtype=torch.float32)
     with torch.cuda.device(xs.device):
-        err = lib.fused_encode_f32(
+        err = _library().fused_encode_launch(
             xs.data_ptr(), out.data_ptr(),
             _ptrs([p.w for p in params]), _ptrs([p.b for p in params]),
-            batch, t_len, d, hidden, layers, rows,
+            batch, t_len, d, hidden, layers, rows, int(compute_dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "fused_encode")
-    fused_encode.launches += 1
+    count_launch(fused_encode, compute_dtype)
     return out
 
 
-fused_encode.launches = 0
+fused_encode.launches = fused_encode.launches_bf16 = 0
 
 
 def fused_decode(
@@ -499,8 +538,10 @@ def fused_decode(
     """Whole-horizon autoregressive decode from given states → (B, t_out, D)
     f32, in one kernel launch: the serve kernel's decoder. Same shapes and
     semantics as the JAX ``fused_decode`` (its ``tile_b`` is a TPU tiling
-    knob and has no counterpart). No backward, as the TPU kernel has none:
-    an input that requires grad raises on both devices."""
+    knob and has no counterpart); bf16 tensors (a ``--bf16`` model's
+    weights) are widened to f32, as the TPU kernel's f32 dot widens them.
+    No backward, as the TPU kernel has none: an input that requires grad
+    raises on both devices."""
     if h0.dim() != 3 or y0.dim() != 2 or min(h0.shape) < 1 or t_out < 1:
         raise ValueError(f"expected h0, c0 (L, B, H), y0 (B, D) and t_out >= 1, got {tuple(h0.shape)}, "
                          f"{tuple(y0.shape)} and {t_out}")
@@ -519,6 +560,8 @@ def fused_decode(
     if context is not None:
         expect.append((context, (batch, ctx_dim)))
     _check_tensors(expect, y0.device)
+    dec_params = _in_tier(dec_params, torch.float32)
+    h0, c0, y0, context, proj_w, proj_b = (_f32(t) for t in (h0, c0, y0, context, proj_w, proj_b))
     # the kernel reads c0, W and b as 16-byte vectors, the rest by element
     if not _on_card(y0, [c0, *[t for p in dec_params for t in p]], "fused_decode"):
         return fused_decode_reference(dec_params, proj_w, proj_b, h0, c0, y0, t_out, context)
@@ -542,8 +585,11 @@ fused_decode.launches = 0
 def fused_lstm_cell(params: LSTMParams, x: torch.Tensor, state):
     """Drop-in for ``models.cell.lstm_cell`` (the JAX signature: ``(params,
     x, (h, c)) → (h, c)``): one LSTM step, in one kernel launch on CUDA
-    tensors, ``lstm_cell`` itself on CPU tensors. f32 only (the bf16 tiers
-    are slice I-c, ``--bf16``). No backward, as the TPU kernel has none: an
+    tensors, ``lstm_cell`` itself on CPU tensors. ``x, h, c, W, b`` are all
+    f32 or, on a bf16 model, all bf16: then the gates and the new c are f32
+    sums of exact products, and h and c are written in bf16, as the TPU
+    kernel writes them in the inputs' dtypes (so the c carry is rounded,
+    unlike the serve kernel's). No backward, as the TPU kernel has none: an
     input that requires grad raises on both devices."""
     h, c = state
     if x.dim() != 2 or h.dim() != 2 or min(*x.shape, *h.shape) < 1:
@@ -551,30 +597,30 @@ def fused_lstm_cell(params: LSTMParams, x: torch.Tensor, state):
     batch, d_in = x.shape
     hidden = h.shape[1]
     refuse_grad([x, h, c, params.w, params.b], "fused_lstm_cell", "cell='xla' (models.cell.lstm_cell)")
-    for t in (x, h, c, params.w, params.b):
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_lstm_cell takes float32 tensors, got {t.dtype}: the bf16 tiers are "
-                            f"ROADMAP.md slice I-c (--bf16)")
+    dtype = x.dtype
+    if dtype not in COMPUTE_DTYPES or any(t.dtype != dtype for t in (h, c, params.w, params.b)):
+        raise TypeError(f"fused_lstm_cell takes x, h, c, W and b all float32 or all bfloat16, got "
+                        f"{[str(t.dtype) for t in (x, h, c, params.w, params.b)]}")
     _check_tensors([(x, (batch, d_in)), (h, (batch, hidden)), (c, (batch, hidden)),
                     (params.w, (d_in + hidden, 4 * hidden)), (params.b, (4 * hidden,))], x.device)
     # the kernel reads c, W and b as 16-byte vectors, x and h by element
     if not _on_card(x, [c, params.w, params.b], "fused_lstm_cell"):
         return lstm_cell(params, x, state)
     rows = kernel_rows(hidden, 1, d_in)
-    h_out = torch.empty((batch, hidden), device=x.device, dtype=torch.float32)
+    h_out = torch.empty((batch, hidden), device=x.device, dtype=dtype)
     c_out = torch.empty_like(h_out)
     with torch.cuda.device(x.device):
-        err = _library().lstm_cell_f32(
+        err = _library().lstm_cell_launch(
             x.data_ptr(), h.data_ptr(), c.data_ptr(), params.w.data_ptr(), params.b.data_ptr(),
             h_out.data_ptr(), c_out.data_ptr(), batch, d_in, hidden, rows,
-            torch.cuda.current_stream().cuda_stream,
+            int(dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "fused_lstm_cell")
-    fused_lstm_cell.launches += 1
+    count_launch(fused_lstm_cell, dtype)
     return h_out, c_out
 
 
-fused_lstm_cell.launches = 0
+fused_lstm_cell.launches = fused_lstm_cell.launches_bf16 = 0
 
 
 def _on_card(x: torch.Tensor, tensors, name: str) -> bool:
@@ -608,13 +654,13 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused_serve")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
-    lib.fused_serve_f32.argtypes = [vp, vp, vp, arr, arr, arr, arr, vp, vp] + [i32] * 9 + [vp]
-    lib.fused_encode_f32.argtypes = [vp, vp, arr, arr] + [i32] * 6 + [vp]
-    lib.peer_context_f32.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+    lib.fused_serve_launch.argtypes = [vp, vp, vp, arr, arr, arr, arr, vp, vp] + [i32] * 10 + [vp]
+    lib.fused_encode_launch.argtypes = [vp, vp, arr, arr] + [i32] * 7 + [vp]
+    lib.peer_context_launch.argtypes = [vp] * 5 + [i32] * 7 + [vp]
     lib.fused_decode_f32.argtypes = [vp] * 5 + [arr, arr, vp, vp] + [i32] * 7 + [vp]
-    lib.lstm_cell_f32.argtypes = [vp] * 7 + [i32] * 4 + [vp]
-    for f in (lib.fused_serve_f32, lib.fused_encode_f32, lib.peer_context_f32, lib.fused_decode_f32,
-              lib.lstm_cell_f32):
+    lib.lstm_cell_launch.argtypes = [vp] * 7 + [i32] * 5 + [vp]
+    for f in (lib.fused_serve_launch, lib.fused_encode_launch, lib.peer_context_launch, lib.fused_decode_f32,
+              lib.lstm_cell_launch):
         f.restype = i32
     lib.fused_serve_error_string.argtypes = [i32]
     lib.fused_serve_error_string.restype = ctypes.c_char_p

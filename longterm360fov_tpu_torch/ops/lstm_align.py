@@ -65,6 +65,7 @@ from .lstm_train import (
     dw_splits,
     in_compute,
     kernel_rows as _lstm_kernel_rows,
+    widen,
 )
 
 __all__ = [
@@ -537,8 +538,9 @@ def aligned_ss_decode(
     differentiable in the decoder, projection and peer-encoder params, h0,
     c0, y0, the teacher, the peer windows and the mask weights through the
     kernels' backward (coins get no gradient), which runs in the forward's
-    ``compute_dtype``."""
+    ``compute_dtype``. bf16 weights are widened (``lstm_train.widen``)."""
     check_compute(compute_dtype)
+    dec_params, (peer_params,) = widen(dec_params), widen([peer_params])
     coins, pwt = coins_pwt
     t_len, batch, d = teacher_tm.shape
     if pwt.dim() != 2 or pwt.shape[0] != batch or tuple(pxs_tm.shape) != (t_len, batch, pwt.shape[1] * d):

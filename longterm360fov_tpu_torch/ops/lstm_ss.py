@@ -66,6 +66,7 @@ from .lstm_train import (
     dw_splits,
     in_compute,
     kernel_rows as _lstm_kernel_rows,
+    widen,
 )
 
 __all__ = [
@@ -629,8 +630,10 @@ def ss_decode(
     """Scheduled-sampling decoder → (B, T, D) f32 predictions;
     differentiable in the params, ``proj_w``, ``proj_b``, ``h0``, ``c0``,
     ``y0``, ``teacher_tm`` and the context through the kernels' backward
-    (coins get no gradient), which runs in the forward's ``compute_dtype``."""
+    (coins get no gradient), which runs in the forward's ``compute_dtype``.
+    bf16 weights are widened (``lstm_train.widen``)."""
     coins, context = coins_ctx
+    dec_params = widen(dec_params)
     _check(dec_params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, residual_dtype)
     check_compute(compute_dtype)
     flat = [t for p in dec_params for t in (p.w, p.b)]

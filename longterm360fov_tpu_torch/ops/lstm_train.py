@@ -58,6 +58,7 @@ __all__ = [
     "lstm_dw",
     "kernel_rows",
     "dw_splits",
+    "widen",
 ]
 
 MAX_LAYERS = 8  # csrc/lstm_train.cu MAX_LAYERS
@@ -274,6 +275,16 @@ def in_compute(ts: Sequence[torch.Tensor], compute_dtype: torch.dtype) -> List[t
     """The weights as a kernel of the ``compute_dtype`` tier reads them:
     f32 as they are, bf16 rounded once per call."""
     return [t.to(compute_dtype).contiguous() for t in ts]
+
+
+def widen(params: Sequence[LSTMParams]) -> List[LSTMParams]:
+    """The layers as the kernels' f32 interface takes them: a ``--bf16``
+    model's W and b widened to f32, which is exact, as JAX's f32 dot widens
+    a bf16 W. The kernels' backward gives the widened tensors f32 dW and db,
+    the dtype JAX's custom VJPs return; at a bf16 leaf torch's engine casts
+    them to bf16, so ``train.make_grad_fn`` takes the gradient at an f32
+    copy of the leaf."""
+    return [LSTMParams(p.w.float(), p.b.float()) for p in params]
 
 
 def _check(params, xs, h0, c0, residual_dtype=torch.float32):
@@ -545,7 +556,8 @@ def lstm_seq_states(
     → (hs_top (B, T, H), hT (L, B, H), cT (L, B, H)), f32; differentiable
     in params, xs, h0 and c0 through the kernels' backward, which runs in
     the forward's ``compute_dtype`` (f32, or bf16: the JAX
-    ``train_compute`` tier)."""
+    ``train_compute`` tier). bf16 weights are widened (:func:`widen`)."""
+    params = widen(params)
     _check(params, xs, h0, c0, residual_dtype)
     check_compute(compute_dtype)
     flat = [t for p in params for t in (p.w, p.b)]

@@ -16,11 +16,22 @@ import torch
 
 from .models.cell import LSTMParams
 
-__all__ = ["params_from_numpy", "walk", "tree_leaves", "tree_unflatten", "params_device"]
+__all__ = ["params_from_numpy", "array_to_tensor", "walk", "tree_leaves", "tree_unflatten", "params_device"]
 
 
-def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+def array_to_tensor(a, device, dtype=None) -> torch.Tensor:
+    """A numpy array (or array-like) → a tensor on ``device``. A bf16 array,
+    ``ml_dtypes.bfloat16`` as JAX's params convert to numpy, or ``|V2`` as
+    ``np.load`` reads one from an npz where ``ml_dtypes`` is not imported,
+    becomes ``torch.bfloat16`` through a uint16 view of its bits (torch
+    reads neither, and the card's machine has no ``ml_dtypes``). ``dtype``
+    casts the result."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
 
 
 _SEQ2SEQ = {"encoder", "decoder", "proj"}
@@ -54,7 +65,7 @@ def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
     def leaves(d, keys):
         if set(d) != keys:
             raise KeyError(f"expected keys {sorted(keys)}, got {sorted(d)}")
-        return {k: _tensor(d[k], device) for k in keys}
+        return {k: array_to_tensor(d[k], device) for k in keys}
 
     if set(tree) == _TRANSFORMER:
         def layers(seq, spec):
@@ -64,7 +75,7 @@ def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
             return [{name: leaves(lay[name], keys) for name, keys in spec.items()} for lay in seq]
 
         return {
-            "in_proj": _tensor(tree["in_proj"], device),
+            "in_proj": array_to_tensor(tree["in_proj"], device),
             "out_proj": leaves(tree["out_proj"], {"w", "b"}),
             "final_ln": leaves(tree["final_ln"], _LN),
             "enc": layers(tree["enc"], _ENC_LAYER),
@@ -79,7 +90,7 @@ def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
 
     def layer(wb):
         w, b = wb
-        return LSTMParams(w=_tensor(w, device), b=_tensor(b, device))
+        return LSTMParams(w=array_to_tensor(w, device), b=array_to_tensor(b, device))
 
     out = {
         "encoder": [layer(p) for p in tree["encoder"]],

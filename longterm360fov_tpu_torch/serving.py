@@ -44,7 +44,7 @@ import torch
 
 from . import geometry, infer, windows
 from .models.fusion import FEATURE_DIM
-from .params import walk
+from .params import array_to_tensor, walk
 
 __all__ = [
     "DynamicBatcher",
@@ -177,9 +177,12 @@ def load_exported_params(npz_path: str, cfg, fam, *, device):
 
     Inverse of the JAX ``cli.cmd_export``: init a skeleton with the
     family's ``init`` (structure + dtypes only), then replace every leaf by
-    its dotted-path key from the npz. Errors out on any missing/extra key
-    or shape mismatch, with the JAX loader's errors — a silent partial load
-    would serve garbage predictions."""
+    its dotted-path key from the npz, in the skeleton's dtype: a ``--bf16``
+    model's skeleton is bf16, and its npz leaves, which plain numpy reads as
+    ``|V2``, are read as bf16 (``params.array_to_tensor``; JAX's loader
+    cannot cast ``|V2``). Errors out on any missing/extra key or shape
+    mismatch, with the JAX loader's errors — a silent partial load would
+    serve garbage predictions."""
     skeleton = fam.init(torch.Generator().manual_seed(0), cfg.model, device="cpu")
     keys = set()
     with np.load(npz_path) as loaded:
@@ -197,7 +200,7 @@ def load_exported_params(npz_path: str, cfg, fam, *, device):
                     f"{tuple(like.shape)} (wrong preset/architecture)"
                 )
             keys.add(key)
-            return torch.from_numpy(arr).to(device=device, dtype=like.dtype)
+            return array_to_tensor(arr, device, like.dtype)
 
         params = walk(skeleton, leaf)
         extra = set(loaded.files) - keys

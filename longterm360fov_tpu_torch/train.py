@@ -24,6 +24,12 @@ card) where the window fits it (T <= 64); JAX keeps that kernel off its
 step (``FUSED_TRAIN_ENCODER = False``), so under "xla" and in JAX the step
 is autograd through ``apply``.
 
+A ``--bf16`` model (``model.param_dtype`` "bfloat16") trains as JAX's
+does: the optimizer follows optax's dtype rules leaf by leaf
+(:func:`make_optimizer`), and on the fused route the LSTM cells' W and b,
+which the kernels train, get f32 gradients, the dtype of JAX's custom VJPs
+(:func:`make_grad_fn`); every other leaf's gradient is in its own dtype.
+
 Not ported yet, and raising: ``data_parallel`` (ROADMAP.md, slice
 'parallelism').
 """
@@ -41,7 +47,7 @@ import torch
 
 from . import losses, windows
 from .config import ExperimentConfig
-from .params import params_device, tree_leaves, tree_unflatten
+from .params import params_device, tree_leaves, tree_unflatten, walk
 
 __all__ = [
     "TrainState",
@@ -56,11 +62,15 @@ __all__ = [
     "make_train_step",
     "init_state",
     "batch_iterator",
+    "eval_impl",
     "train_loop",
 ]
 
 TRAIN_IMPLS = ("auto", "xla", "fused")
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.adam defaults (eps_root = 0)
+# the subtrees of the seq2seq families' LSTM cells, whose W and b the fused
+# route trains on the kernels
+_CELLS = ("encoder", "decoder", "peer_encoder")
 
 
 class AdamState(NamedTuple):
@@ -102,11 +112,27 @@ def learning_rate(cfg: ExperimentConfig, count: int) -> float:
     return float(f32(peak) * (f32(1 - alpha) * cosine + f32(alpha)))
 
 
+def _weak(x: float, t: torch.Tensor) -> float:
+    """The Python scalar ``x`` as JAX applies it to an array like ``t``: a
+    weakly typed scalar takes the array's dtype, so it is rounded to it
+    (torch computes a bf16 op with the scalar in f32 instead)."""
+    return x if t.dtype == torch.float32 else float(torch.tensor(x, dtype=t.dtype))
+
+
 def make_optimizer(cfg: ExperimentConfig) -> Optimizer:
     """``clip_by_global_norm(cfg.grad_clip)`` then ``adam`` at
     :func:`learning_rate`, with optax's formulas: the clip scales by
     ``max_norm / ‖g‖`` only when ``‖g‖ >= max_norm``, with no epsilon
-    (``torch.nn.utils.clip_grad_norm_`` adds 1e-6)."""
+    (``torch.nn.utils.clip_grad_norm_`` adds 1e-6).
+
+    And with optax's dtypes, leaf by leaf: the moments start in the param's
+    dtype and each update promotes them by the gradient's (a bf16 moment of
+    an f32 gradient becomes f32); each leaf's squared sum for the norm is
+    taken in its own dtype and the leaves' sums promote as they add; the
+    bias corrections, learning rate and other constants are rounded to the
+    dtype of the array they scale. The update is in the moments' dtype;
+    :func:`make_train_step` adds it to the param and rounds the sum to the
+    param's dtype, as ``optax.apply_updates``."""
 
     def init(params) -> AdamState:
         leaves = tree_leaves(params)
@@ -119,16 +145,16 @@ def make_optimizer(cfg: ExperimentConfig) -> Optimizer:
         g = tree_leaves(grads)
         g_norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
         keep = g_norm < cfg.grad_clip
-        g = [torch.where(keep, x, (x / g_norm) * cfg.grad_clip) for x in g]
-        mu = [(1 - _B1) * x + _B1 * m for x, m in zip(g, state.mu)]
-        nu = [(1 - _B2) * (x * x) + _B2 * v for x, v in zip(g, state.nu)]
+        g = [torch.where(keep, x, (x / g_norm.to(x.dtype)) * _weak(cfg.grad_clip, x)) for x in g]
+        mu = [_weak(1 - _B1, x) * x + _weak(_B1, m) * m for x, m in zip(g, state.mu)]
+        nu = [_weak(1 - _B2, x) * (x * x) + _weak(_B2, v) * v for x, v in zip(g, state.nu)]
         count = state.count + 1
         one = torch.tensor(1.0, dtype=torch.float32)
         bc1 = (one - torch.tensor(_B1, dtype=torch.float32) ** count).item()
         bc2 = (one - torch.tensor(_B2, dtype=torch.float32) ** count).item()
         step_size = -learning_rate(cfg, state.count)
         updates = [
-            step_size * ((m / bc1) / (torch.sqrt(v / bc2) + _EPS))
+            _weak(step_size, m) * ((m / _weak(bc1, m)) / (torch.sqrt(v / _weak(bc2, v)) + _weak(_EPS, v)))
             for m, v in zip(mu, nu)
         ]
         return tree_unflatten(grads, updates), AdamState(count, mu, nu)
@@ -190,7 +216,15 @@ def make_grad_fn(
     extras into keyword arguments of the forward. With scheduled sampling,
     ``gen`` draws the coins (microbatch after microbatch) at
     ``teacher_prob``. ``gc_metric=False`` skips the great-circle metric
-    (reported as NaN) unless the loss needs it."""
+    (reported as NaN) unless the loss needs it.
+
+    Each leaf's gradient is in its dtype but on the fused route, where a
+    bf16 LSTM cell's W and b (the kernels' weights) get f32 gradients, as
+    JAX's custom VJPs give them: their gradient is taken at an f32 copy of
+    the leaf, which the kernels' wrappers take as it is. A leaf the loss
+    does not reach gets zeros in its own dtype, as under ``jax.grad``. With
+    ``accum`` > 1 the microbatches' gradients are summed in f32 and the
+    mean rounded to each param's dtype, as JAX's accumulation does."""
     _check_ported(cfg)
     extras = extras_fn or default_extras
     impl_on = cfg.train_impl in ("auto", "fused")
@@ -226,12 +260,14 @@ def make_grad_fn(
         return loss, gc_deg
 
     def one(params, batch, gen, teacher_prob):
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        orig, cells = tree_leaves(params), []
+        walk(params, lambda key, _: cells.append((use_fused or use_fused_ss) and key.split(".")[0] in _CELLS))
+        leaves = [(p.detach().float() if cell else p.detach()).requires_grad_(True) for p, cell in zip(orig, cells)]
         loss, gc_deg = loss_fn(tree_unflatten(params, leaves), batch, gen, teacher_prob)
         # a leaf the loss does not reach (the peer encoder under an explicit
         # context) gets a zero gradient, as under jax.grad
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-        return (loss.detach(), gc_deg), list(grads)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return (loss.detach(), gc_deg), [torch.zeros_like(p) if g is None else g for g, p in zip(grads, orig)]
 
     def grad_fn(params, batch, gen=None, teacher_prob=1.0):
         device = params_device(params)
@@ -337,6 +373,14 @@ def batch_iterator(
         epoch += 1
 
 
+def eval_impl(cfg: ExperimentConfig) -> str:
+    """The in-loop evaluation's impl: "fused", the family's ``serve_fused``
+    (its serving kernels on the card), for an f32 model; "plain", the
+    family's ``apply`` in the params' dtype, for a bf16 one, whose decode
+    then runs in bf16 as JAX's ``infer.predict_batch`` runs it."""
+    return "fused" if cfg.model.param_dtype == "float32" else "plain"
+
+
 def train_loop(
     cfg: ExperimentConfig,
     init_fn: Callable,
@@ -357,8 +401,7 @@ def train_loop(
     Runs the fast step between logged steps and the full step (with the
     great-circle metric) on every ``eval_every``-th and the last step; a
     logged step also evaluates ``eval_data`` through ``evaluate.evaluate``
-    with ``impl="fused"`` (the family's ``serve_fused``: its serving
-    kernels on the card) and appends a JSON line to ``log_file``.
+    with :func:`eval_impl`'s impl and appends a JSON line to ``log_file``.
     Checkpoints every ``ckpt_every`` steps and at the end. Resumable: pass
     a restored ``state`` to continue from its step."""
     optimizer = make_optimizer(cfg)
@@ -387,7 +430,7 @@ def train_loop(
                 if eval_data is not None:
                     from .evaluate import evaluate
 
-                    eres = evaluate(state.params, cfg, eval_data, impl="fused")
+                    eres = evaluate(state.params, cfg, eval_data, impl=eval_impl(cfg))
                     m["eval_great_circle_deg"] = eres["mean_deg"]
                 history.append(m)
                 if log_file:

@@ -70,17 +70,18 @@ def test_reference_matches_numpy_oracle():
 @pytest.mark.parametrize(
     "kw",
     [
-        # the static-context and lockstep-peer tiers are ported in f32 only
-        {"context": torch.zeros(4, 8), "compute_dtype": torch.bfloat16},
-        {"peer_xs": torch.zeros(4, 2, 3, 3), "compute_dtype": torch.bfloat16},
-        {"compute_dtype": torch.bfloat16},
+        # every tier takes f32 and bf16 compute, as JAX's; another compute
+        # dtype is a TypeError, and the roofline _probe modes are not ported
+        {"context": torch.zeros(4, 8), "compute_dtype": torch.float16},
+        {"peer_xs": torch.zeros(4, 2, 3, 3), "compute_dtype": torch.float16},
+        {"compute_dtype": torch.float16},
         {"_probe": "mm"},
     ],
     ids=["context", "peers", "bf16", "probe"],
 )
 def test_rejects_tiers_not_ported(kw):
     _, params, past_n = _setup(1, 32, 4, 3, 4, seed=0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError if "_probe" in kw else TypeError):
         fused_lstm.fused_serve(*_args(params, past_n, 3), **kw)
 
 

@@ -2,7 +2,7 @@
 (the cell of ``cfg.cell == "pallas"``), on the CPU: its plain version
 against the JAX ``fused_lstm_cell`` (interpret mode) at the JAX suite's two
 shapes within its 1e-5 (tests/test_fused_lstm.py); ``get_cell_fn``; what
-the wrapper refuses (grad: the TPU kernel has no VJP; non-f32: slice I-c);
+the wrapper refuses (grad: the TPU kernel has no VJP; mixed dtypes);
 and the step-loop entries of seq2seq and cross_user under ``cell="pallas"``
 against JAX with the same cell.
 
@@ -74,7 +74,7 @@ def test_cell_refusals():
         fused_lstm.fused_lstm_cell(cell.LSTMParams(tp.w.clone().requires_grad_(True), tp.b), x, (h, c))
     with torch.no_grad():  # no grad in flight: nothing to refuse
         fused_lstm.fused_lstm_cell(cell.LSTMParams(tp.w.clone().requires_grad_(True), tp.b), x, (h, c))
-    with pytest.raises(TypeError, match="slice I-c"):
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
         fused_lstm.fused_lstm_cell(tp, x.bfloat16(), (h, c))
     with pytest.raises(ValueError, match="contiguous"):
         fused_lstm.fused_lstm_cell(tp, x, (h.t().contiguous().t(), c))

@@ -444,7 +444,6 @@ def test_cli_train_reads_jax_prepared_data(tmp_path, capsys):
 @pytest.mark.parametrize("flag,match", [
     (["--data-parallel"], "parallelism"), (["--seq-parallel", "2"], "parallelism"),
     (["--pipeline-parallel", "2"], "parallelism"),
-    (["--bf16"], "slice I-c"),
     (["--tb-dir", "tb"], "TCP daemon and CLI"),
 ])
 def test_cli_train_unported_flags_raise(flag, match):
