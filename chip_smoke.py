@@ -17,8 +17,10 @@ one line each or more:
    coins); the lockstep-peer tier of ``fused_serve`` (``peer_context`` and
    the serve kernel with a per-step context) and the six
    ``aligned_ss_decode`` kernels (100 + 100 steps, C = 128, K = 7 and 3
-   peers with a row whose every peer is masked, 1 and 2 layers, both
-   residual types, the three coin kinds); the static-context ``fused_serve``
+   peers with a row whose every peer is masked, and K = 1, 1 and 2 layers,
+   both residual types, the three coin kinds); beside every dW reduction
+   its pack kernel at every layer against the plain version and two runs
+   of the reduction bit-equal; the static-context ``fused_serve``
    and the ``ss_decode`` kernels at video-fusion's C = 64; ``conv_resize`` at
    five shapes (the JAX suite's, a clip at the feature defaults, the fusion
    maps mode, upsampling, odd sizes); ``fused_encode_tokens`` (B = 16384 at
@@ -103,7 +105,11 @@ one line each or more:
 9. the ``stacked-ss-crossuser-10s`` training main path: ``train.train_loop``
    at B = 4096 through ``aligned_ss_decode`` (peers and decoder) and
    ``lstm_seq_states`` (encoder), as in 7, and the aligned kernels alone
-   against plain and cuDNN/cuBLAS;
+   against plain and cuDNN/cuBLAS; then one line per dW reduction (f32 and
+   bf16 compute, phases 5, 7 and 9) with its time beside its time before
+   the pack-and-tensor-core design (``DW_BEFORE``), its bound's share of it,
+   cuBLAS's time and the registers and shared memory of its kernels; phase
+   5 also times the pack kernel alone;
 10. the feature path: two synthetic uint8 clips (1200 frames of 480 x 960,
    a panning textured scene from the seed) through ``cli extract-features
    --device cuda`` (two ``conv_resize`` launches a clip), checked against
@@ -272,6 +278,12 @@ BF16C_FLOOR = 0.5
 F32_FLOPS = 67e12  # H100 SXM f32 FMA peak outside the tensor cores (data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
+# the dW reductions' times before the pack-and-tensor-core design (PERF.md
+# §6's earlier readings, CUDA events on an NVIDIA H100 80GB HBM3 at
+# 700.00 W), printed beside this run's times
+DW_BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_decode_dw": 3.920,
+             "ss_decode_dw_bf16": 3.777, "aligned_dec_dw": 20.739, "aligned_dec_dw_bf16": 20.681,
+             "aligned_peer_dw": 20.808, "aligned_peer_dw_bf16": 21.833}
 # the cell kernel against lstm_cell: one step, exact f32 FMAs in another order
 # (tests/test_fused_lstm.py's bound for the TPU cell)
 CELL_TOL = 1e-5
@@ -319,6 +331,7 @@ SERVE_SRC = "longterm360fov_tpu_torch/csrc/fused_serve.cu"
 LSTM_SRC = "longterm360fov_tpu_torch/csrc/lstm_train.cu"
 SS_SRC = "longterm360fov_tpu_torch/csrc/lstm_ss.cu"
 ALIGN_SRC = "longterm360fov_tpu_torch/csrc/lstm_align.cu"
+COMMON_SRC = "longterm360fov_tpu_torch/csrc/lstm_common.cuh"
 CONV_SRC = "longterm360fov_tpu_torch/csrc/conv_resize.cu"
 TENC_SRC = "longterm360fov_tpu_torch/csrc/transformer_encode.cu"
 TDEC_SRC = "longterm360fov_tpu_torch/csrc/transformer_decode.cu"
@@ -411,6 +424,8 @@ KERNELS = [
     ("lstm_seq_states_fwd", LSTM_SRC, "longterm360fov_tpu/ops/lstm_train.py:172", lstm_train.lstm_fwd, S2S_TRAIN),
     ("lstm_seq_states_bwd", LSTM_SRC, "longterm360fov_tpu/ops/lstm_train.py:396", lstm_train.lstm_bwd, S2S_TRAIN),
     ("lstm_seq_states_dw", LSTM_SRC, "longterm360fov_tpu/ops/lstm_train.py:396", lstm_train.lstm_dw, S2S_TRAIN),
+    # the pack pass of every dW reduction (each path's lstm_dw, ss_dw, dec_dw, peer_dw launch it)
+    ("lstm_dw_pack", COMMON_SRC, "longterm360fov_tpu/ops/lstm_train.py:396", lstm_train.dw_pack, S2S_TRAIN),
     ("ss_decode_fwd", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:175", lstm_ss.ss_fwd, CU_TRAIN),
     ("ss_decode_bwd", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:404", lstm_ss.ss_bwd, CU_TRAIN),
     ("ss_decode_dw", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:404", lstm_ss.ss_dw, CU_TRAIN),
@@ -448,6 +463,8 @@ KERNELS = [
      Bf16Count(lstm_train.lstm_bwd), S2S_TRAIN_BF16),
     ("lstm_seq_states_dw_bf16", LSTM_SRC, "longterm360fov_tpu/ops/lstm_train.py:396",
      Bf16Count(lstm_train.lstm_dw), S2S_TRAIN_BF16),
+    ("lstm_dw_pack_bf16", COMMON_SRC, "longterm360fov_tpu/ops/lstm_train.py:396",
+     Bf16Count(lstm_train.dw_pack), S2S_TRAIN_BF16),
     ("ss_decode_fwd_bf16", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:175", Bf16Count(lstm_ss.ss_fwd),
      CU_TRAIN_BF16),
     ("ss_decode_bwd_bf16", SS_SRC, "longterm360fov_tpu/ops/lstm_ss.py:404", Bf16Count(lstm_ss.ss_bwd),
@@ -480,6 +497,7 @@ BF, F32 = torch.bfloat16, torch.float32
 WRAPPERS = {name: wrapper for name, _, _, wrapper, _ in KERNELS}
 ERRS = {name: 0.0 for name in WRAPPERS}  # max abs error vs plain over every check
 TIMES = {}  # kernel name -> {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}
+BUILD_LOGS = {}  # kernel source -> nvcc's ptxas report of this run's build
 
 
 def note_err(name, err):
@@ -782,7 +800,26 @@ def check_lstm_kernels(dev, batch, layers, rd, seed, cd=F32):
     errs["bwd"] = check_outputs("lstm_seq_states_bwd", grads(bw), [grads(b) for b in bws], what, "rec", cd)
     errs["dw"] = check_outputs("lstm_seq_states_dw", wb(dps), [wb(d) for d in dws], what, "sum", cd,
                                unrounded=layers)
+    errs["pack"] = check_packs(lstm_train.lstm_dw, (ps, xs, h0, res, bws[0][0]), layers, xs, h0, res, what, cd)
     return errs
+
+
+def check_packs(dw, args, layers, x0, h0, res, what, cd):
+    """The pack kernel of the reduction ``dw`` (its arguments ``args``) at
+    every layer against its plain version (``x0`` layer 0's input, its
+    first 3 features x_t), and two runs of ``dw`` bit-equal (no float
+    atomics) → check_outputs' reading at each layer."""
+    readings = []
+    for l in range(layers):
+        zp = lstm_train.dw_pack(dw, *args, layer=l, compute_dtype=cd)
+        refs = plains(cd, lambda c: [lstm_train._pack_reference(x0, h0, res, l, 3 if l == 0 else 0, c)])
+        readings.append(check_outputs("lstm_dw_pack", [zp], refs, f"{what}, layer {l}", "fwd", cd))
+    first, again = dw(*args, cd), dw(*args, cd)
+    torch.cuda.synchronize()
+    flat = wb if isinstance(first, list) else (lambda out: [out.w, out.b])
+    if not all(torch.equal(a, b) for a, b in zip(flat(first), flat(again), strict=True)):
+        raise AssertionError(f"{dw.__name__} is not bit-equal on repeat ({what})")
+    return readings
 
 
 def ss_case(dev, batch, layers, ctx_dim, coins, seed, t=30, d=3, h=128):
@@ -833,6 +870,8 @@ def check_ss_kernels(dev, batch, layers, ctx_dim, rd, coins, seed, cd=F32):
         raise AssertionError(f"ss_bwd gave dctx {bw[6] is not None} for C={ctx_dim}")
     errs["bwd"] = check_outputs("ss_decode_bwd", grads(bw), [grads(b) for b in bws], what, "rec", cd)
     errs["dw"] = check_outputs("ss_decode_dw", wb(dps), [wb(d) for d in dws], what, "sum", cd, unrounded=layers)
+    x0 = lstm_ss._layer0_input(a["y0"], a["teacher"], a["coins"], a["ctx"], ys)
+    errs["pack"] = check_packs(lstm_ss.ss_dw, dw_in, layers, x0, a["h0"], res, what, cd)
     errs["dproj"] = check_outputs("ss_decode_dproj", list(dproj), [list(d) for d in dprojs], what, "sum", cd,
                                   unrounded=1)
     return errs
@@ -925,6 +964,11 @@ def check_aligned_kernels(dev, batch, layers, k, rd, coins, seed, cd=F32):
                                    unrounded=layers)
     errs["peer_dw"] = check_outputs("aligned_peer_dw", wb([pdw]), [wb([d]) for d in pdws], what, "sum", cd,
                                     unrounded=1)
+    x0 = lstm_ss._layer0_input(a["y0"], a["teacher"], a["coins"], lstm_align._rebuilt_ctx(php, a["pwt"]), ys)
+    errs["pack"] = check_packs(lstm_align.dec_dw, dw_in, layers, x0, a["h0"], res, what, cd)
+    no_h = torch.zeros((1, php.shape[0], php.shape[2]), device=dev)  # the peers start from zero state
+    errs["peer_pack"] = check_packs(lstm_align.peer_dw, pdw_in, 1, a["pxs"], no_h, lstm_train.Residuals([php], [], []),
+                                    what, cd)
     return errs
 
 
@@ -958,7 +1002,8 @@ def check_all_kernels(dev):
         for layers in (1, 2):
             for rd in (torch.float32, torch.bfloat16):
                 errs[f"B={batch} L={layers} {str(rd)[6:]}"] = check_lstm_kernels(dev, batch, layers, rd, seed=layers)
-    print(f"lstm_seq_states kernels vs plain, hidden 128, T=30, max_abs_err {json.dumps(errs)} "
+    print(f"lstm_seq_states kernels vs plain (the dW reduction's pack kernel at every layer too, and the reduction "
+          f"bit-equal on repeat), hidden 128, T=30, max_abs_err {json.dumps(errs)} "
           f"(forward {FWD_TOL}, plus one bf16 step with bf16 residuals; backward {BWD_REL_TOL} "
           f"of max|plain|)", flush=True)
     errs = {}
@@ -968,7 +1013,8 @@ def check_all_kernels(dev):
                 for coins in ("bernoulli", "1", "0"):
                     key = f"B={batch} L={layers} C={ctx_dim} {str(rd)[6:]} coins={coins}"
                     errs[key] = check_ss_kernels(dev, batch, layers, ctx_dim, rd, coins, seed=layers)
-    print(f"ss_decode kernels vs plain, hidden 128, T=30, D=3, max_abs_err {json.dumps(errs)} "
+    print(f"ss_decode kernels vs plain (with the dW pack kernel and a repeat, as above), hidden 128, T=30, D=3, "
+          f"max_abs_err {json.dumps(errs)} "
           f"(forward {FWD_TOL}, plus one bf16 step on bf16 residuals; backward and reductions "
           f"{BWD_REL_TOL} of max|plain| per output)", flush=True)
     errs = {f"B={b} L={l} K={k}": check_peer_serve(dev, b, l, k, seed=l + k)
@@ -976,13 +1022,15 @@ def check_all_kernels(dev):
     print(f"lockstep fused_serve tier vs plain, hidden 128, C=128, 100+100 steps, a row with every peer "
           f"masked: max_abs_err {json.dumps(errs)} (peer_context {ENC_TOL}, outputs {KERNEL_TOL})", flush=True)
     errs = {}
-    for batch, coin_kinds in ((4099, ("bernoulli", "1", "0")), (TRAIN_B, ("bernoulli",))):
-        for layers, k in ((1, 3), (2, 7)):
+    for batch, coin_kinds, shapes in ((4099, ("bernoulli", "1", "0"), ((1, 3), (2, 7))),
+                                      (TRAIN_B, ("bernoulli",), ((1, 3), (2, 7), (2, 1)))):
+        for layers, k in shapes:
             for rd in (torch.float32, torch.bfloat16):
                 for coins in coin_kinds:
                     key = f"B={batch} L={layers} K={k} {str(rd)[6:]} coins={coins}"
                     errs[key] = check_aligned_kernels(dev, batch, layers, k, rd, coins, seed=layers + k)
-    print(f"aligned_ss_decode kernels vs plain, hidden 128, C=128, T=100, D=3, max_abs_err {json.dumps(errs)} "
+    print(f"aligned_ss_decode kernels vs plain (with both dW pack kernels and repeats, as above), hidden 128, "
+          f"C=128, T=100, D=3, K=3, 7 and 1, max_abs_err {json.dumps(errs)} "
           f"(forward {FWD_TOL}, plus one bf16 step on bf16 residuals; backward and reductions "
           f"{BWD_REL_TOL} of max|plain| per output)", flush=True)
     errs = {}
@@ -995,7 +1043,7 @@ def check_all_kernels(dev):
                 key = f"B=4099 L={layers} C={ctx_dim} {str(rd)[6:]} coins={coins}"
                 errs[key] = check_ss_kernels(dev, 4099, layers, ctx_dim, rd, coins, layers, BF)
     for layers, k, rd, coins in ((1, 3, F32, "bernoulli"), (1, 3, BF, "bernoulli"), (2, 7, F32, "bernoulli"),
-                                 (2, 7, BF, "bernoulli"), (2, 7, BF, "1"), (2, 7, BF, "0")):
+                                 (2, 7, BF, "bernoulli"), (2, 7, BF, "1"), (2, 7, BF, "0"), (2, 1, BF, "bernoulli")):
         key = f"B=4099 L={layers} K={k} {str(rd)[6:]} coins={coins}"
         errs[key] = check_aligned_kernels(dev, 4099, layers, k, rd, coins, layers + k, BF)
     print(f"bf16-compute tiers of lstm_seq_states (T=30), ss_decode (30+30 steps) and aligned_ss_decode (100+100 "
@@ -1131,10 +1179,11 @@ def drive_s2s_serving(cfg, fam, dev, params_np, params):
 
 
 def serve_bench(preset, batches, smi):
-    """serve-bench traj/s, fused against plain, at each (batch, iters)."""
+    """serve-bench traj/s, fused against xla (the plain PyTorch path), at
+    each (batch, iters)."""
     out = []
     for batch, iters in batches:
-        for impl in ("fused", "plain"):
+        for impl in ("fused", "xla"):
             r = cli.serve_bench(preset=preset, batch=batch, iters=iters, impl=impl, device="cuda:0")
             out.append({k: r[k] for k in ("impl", "batch", "iters", "peers", "ms_per_batch",
                                           "viewers_per_sec")})
@@ -1736,6 +1785,81 @@ def time_lstm_kernels(dev, smi):
     time_bf16_tier(bcalls, bwork, [ps[0].w], {"plain": 3, "kernel": 10, "f32_kernel": 10, "library": 10},
                    f"lstm_seq_states bf16-compute kernels alone (ms, B={TRAIN_B}, L=1, bf16 residuals, CUDA "
                    f"events, against the f32-compute kernels; library: one cuBLAS bmm on bf16 operands)", smi)
+
+
+def time_dw_pack(dev, smi):
+    """The dW reductions' pack kernel alone against its plain version, in
+    both compute types: at the main path's shape (seq2seq-tf-30's layer 0,
+    B = 4096, T = 30, bf16 residuals: the kernels line's entries) and at
+    the heaviest (stacked-ss-crossuser-10s's decoder layer 0, the context
+    rebuilt from K = 7 peers' h over T = 100), in turns. Its bound is bytes:
+    the sources once, the packed z once, in the types they are stored in."""
+    ps, (xs, h0, c0), up = lstm_case(dev, TRAIN_B, 1, seed=3)
+    res = lstm_train.lstm_fwd(ps, xs, h0, c0, BF)
+    dg = lstm_train.lstm_bwd(ps, c0, res, *up)[0]
+    out = {}
+    for cd in (F32, BF):
+        name = "lstm_dw_pack" + ("_bf16" if cd == BF else "")
+        out[name] = in_turns({"plain": lambda cd=cd: lstm_train._pack_reference(xs, h0, res, 0, 3, cd),
+                              "kernel": lambda cd=cd: lstm_train.dw_pack(lstm_train.lstm_dw, ps, xs, h0, res, dg,
+                                                                         compute_dtype=cd)},
+                             {"plain": 5, "kernel": 20})
+        zp = lstm_train.dw_pack(lstm_train.lstm_dw, ps, xs, h0, res, dg, compute_dtype=cd)
+        record(name, out[name], 0, [xs, h0[0], res.hs[0]], [zp], peak=BF16_FLOPS)
+    ps, a = aligned_case(dev, TRAIN_B, 2, 7, "bernoulli", seed=11)
+    php, _, ctx = lstm_align.peer_fwd(a["peer"], a["pxs"], a["pwt"], BF)
+    ys, res = lstm_align.dec_fwd(ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"],
+                                 ctx, BF)
+    no_dg = [torch.zeros(res.gs[0].shape, device=dev)] * 2  # the pack pass reads no dgates
+    dw_in = (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["pwt"], php, ys, res, no_dg)
+    x0 = lstm_ss._layer0_input(a["y0"], a["teacher"], a["coins"], lstm_align._rebuilt_ctx(php, a["pwt"]), ys)
+    for cd in (F32, BF):
+        ms = in_turns({"plain": lambda cd=cd: lstm_train._pack_reference(x0, a["h0"], res, 0, 3, cd),
+                       "kernel": lambda cd=cd: lstm_train.dw_pack(lstm_align.dec_dw, *dw_in, compute_dtype=cd)},
+                      {"plain": 2, "kernel": 5})
+        zp = lstm_train.dw_pack(lstm_align.dec_dw, *dw_in, compute_dtype=cd)
+        reads = [a["h0"][0], a["y0"], a["teacher"], a["coins"], a["pwt"], php, ys, res.hs[0]]
+        b_ms, _ = bound(0, reads, [zp])
+        out[f"aligned layer 0 {str(cd)[6:]}"] = dict(ms, bound=b_ms)
+    print(f"lstm_dw_pack alone (ms, layer 0: seq2seq-tf-30 B={TRAIN_B} T=30, and stacked-ss-crossuser-10s "
+          f"B={TRAIN_B} K=7 T=100; bf16 residuals, CUDA events; bound: bytes; {smi}): {json.dumps(out)}",
+          flush=True)
+
+
+def ptxas_resources(source, symbol):
+    """Registers, shared memory and spills of the first kernel of this run's
+    build of ``source`` whose mangled name holds every part of ``symbol``."""
+    name, props = None, {}
+    for ln in BUILD_LOGS.get(source, "").splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and all(part in name for part in symbol):
+            if "spill" in ln:
+                props["spill_stores"], props["spill_loads"] = (int(x.split(" bytes")[0]) for x in ln.split(",")[1:3])
+            elif "registers" in ln:
+                props["registers"] = int(ln.split("Used")[1].split(" registers")[0])
+                props["smem_bytes"] = int(ln.split(" bytes smem")[0].split(",")[-1]) if "smem" in ln else 0
+                return props
+    return {"registers": "not reported (cached build)"}
+
+
+def report_dw(smi):
+    """One line per dW instance: this run's time beside its time before the
+    redesign (DW_BEFORE, PERF.md), its bound and the bound's share of the
+    time, cuBLAS's time for the same products, and the registers, shared
+    memory and spills of its product kernel and its pack kernel (bf16
+    residuals, the main path's)."""
+    sources = {"lstm_seq_states": ("lstm_train", "Li0E"), "ss_decode": ("lstm_ss", "Li1E"),
+               "aligned_dec": ("lstm_align", "Li2E"), "aligned_peer": ("lstm_align", "Li0E")}
+    for name, before in DW_BEFORE.items():
+        t = TIMES[name]
+        src, mode = sources[name.rsplit("_dw", 1)[0]]
+        ct = "13__nv_bfloat16" if name.endswith("bf16") else "f"
+        product = ptxas_resources(src, ("lstm_dw_partial_kernel", f"kernelI{ct}E"))
+        pack = ptxas_resources(src, ("lstm_dw_pack_kernel", f"kernelI13__nv_bfloat16{mode}{'S0_' if ct != 'f' else 'f'}E"))
+        print(f"{name}: {t['ms']:.3f} ms (before this design {before} ms, PERF.md), bound {t['bound_ms']:.3f} ms "
+              f"({t['bound_by']}; {t['bound_ms'] / t['ms']:.1%} of the time), cuBLAS {t['library_ms']:.3f} ms; "
+              f"product kernel {json.dumps(product)}, pack kernel {json.dumps(pack)} ({smi})", flush=True)
 
 
 # --------------------------------------------------------------- stacked-ss-crossuser serving
@@ -3119,7 +3243,7 @@ def ptxas_report(log):
     return "; ".join(out)
 
 
-KERNEL_SYMBOLS = ("fused_serve_kernel", "fused_decode_kernel", "lstm_cell_kernel", "peer_context_kernel",
+KERNEL_SYMBOLS = ("lstm_dw_pack_kernel", "fused_serve_kernel", "fused_decode_kernel", "lstm_cell_kernel", "peer_context_kernel",
                   "fused_encode_kernel", "encode_tokens_kernel", "ar_decode_kernel", "encode_stash_kernel",
                   "encode_reverse_kernel", "reduce_partials_kernel", "conv_resize_kernel", "lstm_dw_sum_kernel",
                   "lstm_dw_partial_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel", "ss_fwd_kernel", "ss_bwd_kernel",
@@ -3306,6 +3430,7 @@ def main():
                "transformer_decode", "transformer_encode_train")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         builds = dict(zip(sources, pool.map(_build.build, sources)))
+    BUILD_LOGS.update({name: b.log for name, b in builds.items()})
     for name, b in builds.items():
         print(f"build: {name}.cu by nvcc in {b.seconds:.2f} s ({b.path.name}) {ptxas_report(b.log)}", flush=True)
 
@@ -3337,8 +3462,10 @@ def main():
     trained, train_d, s2s_train = drive_training(tcfg, S2S_TRAIN, dev, also=["fused_serve"])
     time_training(tcfg, trained, train_d, S2S_TRAIN, smi, plain_iters=5)
     time_lstm_kernels(dev, smi)
+    time_dw_pack(dev, smi)
     # train --train-compute bfloat16: both kernels of the stack in the bf16 compute type
     s2s_train_bf16 = drive_bf16_training(tcfg, S2S_TRAIN_BF16, dev, ["fused_serve"], smi)
+
 
     phase("6 serve stacked-ss-crossuser")
     # 6. stacked-ss-crossuser serving
@@ -3356,7 +3483,8 @@ def main():
     # logged steps evaluate through the serving kernels; the encoder and the
     # peer encoder train on lstm_seq_states
     ctrained, ctrain_d, cu_train = drive_training(ctcfg, CU_TRAIN, dev, also=[
-        "fused_serve", "fused_encode", "lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw"])
+        "fused_serve", "fused_encode", "lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw",
+        "lstm_dw_pack"])
     step = time_training(ctcfg, ctrained, ctrain_d, CU_TRAIN, smi, plain_iters=2)
     profile_device(f"{CU_TRAIN}: fast step", step, 5, smi)
     time_ss_kernels(dev, smi)
@@ -3364,7 +3492,8 @@ def main():
     # context's peer encoder in f32, as in JAX
     cu_train_bf16 = drive_bf16_training(ctcfg, CU_TRAIN_BF16, dev, [
         "fused_serve", "fused_encode", "lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw",
-        "lstm_seq_states_fwd_bf16", "lstm_seq_states_bwd_bf16", "lstm_seq_states_dw_bf16"], smi)
+        "lstm_dw_pack", "lstm_seq_states_fwd_bf16", "lstm_seq_states_bwd_bf16", "lstm_seq_states_dw_bf16",
+        "lstm_dw_pack_bf16"], smi)
     torch.cuda.empty_cache()
 
     phase("8 serve stacked-ss-crossuser-10s")
@@ -3387,17 +3516,18 @@ def main():
     c10tcfg = get_preset(CU10_PRESET, batch_size=TRAIN_B, steps=20, eval_every=10, ckpt_every=10)
     c10trained, c10train_d, cu10_train = drive_training(c10tcfg, CU10_TRAIN, dev, also=[
         "fused_serve_peers", "peer_context", "lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw",
-        "ss_decode_dproj"], step_tol=ALIGN_STEP_REL_TOL)
+        "ss_decode_dproj", "lstm_dw_pack"], step_tol=ALIGN_STEP_REL_TOL)
     step = time_training(c10tcfg, c10trained, c10train_d, CU10_TRAIN, smi, plain_iters=1, kernel_iters=5)
     profile_device(f"{CU10_TRAIN}: fast step", step, 3, smi)
     del step, c10trained
     torch.cuda.empty_cache()
     time_aligned_kernels(dev, smi)
+    report_dw(smi)
     torch.cuda.empty_cache()
     # the bf16 compute type: peers, decoder and (f32 residuals) the encoder
     cu10_train_bf16 = drive_bf16_training(c10tcfg, CU10_TRAIN_BF16, dev, [
         "fused_serve_peers", "peer_context", "lstm_seq_states_fwd_bf16", "lstm_seq_states_bwd_bf16",
-        "lstm_seq_states_dw_bf16", "ss_decode_dproj_bf16"], smi, steps=4, rows=256, iters=3)
+        "lstm_seq_states_dw_bf16", "ss_decode_dproj_bf16", "lstm_dw_pack_bf16"], smi, steps=4, rows=256, iters=3)
     torch.cuda.empty_cache()
 
     phase("10 features video-fusion")
@@ -3422,7 +3552,7 @@ def main():
     ftcfg = get_preset(FU_PRESET, batch_size=TRAIN_B, steps=30, eval_every=10, ckpt_every=15)
     ftrained, ftrain_d, fu_train = drive_training(ftcfg, FU_TRAIN, dev, also=[
         "fused_serve", "lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw", "ss_decode_fwd",
-        "ss_decode_bwd", "ss_decode_dw", "ss_decode_dproj"], windows_=fu_windows)
+        "ss_decode_bwd", "ss_decode_dw", "ss_decode_dproj", "lstm_dw_pack"], windows_=fu_windows)
     step = time_training(ftcfg, ftrained, ftrain_d, FU_TRAIN, smi, plain_iters=2)
     profile_device(f"{FU_TRAIN}: fast step", step, 5, smi)
     maps_step(ftcfg, ftrained, dev, smi)
@@ -3430,7 +3560,8 @@ def main():
     torch.cuda.empty_cache()
     drive_bf16_training(ftcfg, FU_TRAIN_BF16, dev, [
         "fused_serve", "lstm_seq_states_fwd_bf16", "lstm_seq_states_bwd_bf16", "lstm_seq_states_dw_bf16",
-        "ss_decode_fwd_bf16", "ss_decode_bwd_bf16", "ss_decode_dw_bf16", "ss_decode_dproj_bf16"], smi,
+        "ss_decode_fwd_bf16", "ss_decode_bwd_bf16", "ss_decode_dw_bf16", "ss_decode_dproj_bf16",
+        "lstm_dw_pack_bf16"], smi,
         windows_=fu_windows)
     torch.cuda.empty_cache()
 
@@ -3518,7 +3649,7 @@ def main():
                                          ((16384, 1), (65536, 1)), smi)
     s2s_cell_bf16 = drive_cell_bf16(dev, params_np, smi)
     torch.cuda.empty_cache()
-    lstm_kernels = ["lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw"]
+    lstm_kernels = ["lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw", "lstm_dw_pack"]
     ss_kernels = ["ss_decode_fwd", "ss_decode_bwd", "ss_decode_dw", "ss_decode_dproj"]
     drive_bf16_params(PRESET, dev, lstm_kernels, smi)
     drive_bf16_params(CU_PRESET, dev, lstm_kernels + ss_kernels, smi)

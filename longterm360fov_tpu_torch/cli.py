@@ -24,6 +24,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,6 +39,9 @@ _NOT_PORTED = {
     "pipeline_parallel": "--pipeline-parallel: ROADMAP.md, slice 'parallelism'",
     "tb_dir": "--tb-dir: ROADMAP.md, slice 'the TCP daemon and CLI'",
 }
+# serve-bench --impl, JAX's names: "fused" the hand-written kernels, "xla"
+# the plain PyTorch path
+SERVE_IMPLS = ("xla", "fused")
 
 
 def card(device: torch.device) -> dict:
@@ -109,6 +113,7 @@ def bench_params_np(cfg, seed: int) -> dict:
 def serve_bench(
     *, preset: str = "seq2seq-tf-30", batch: int, iters: int, impl: str,
     device, seed: int = 0, peers: int = -1, peer_align: bool = False,
+    h_in: Optional[int] = None, h_out: Optional[int] = None,
 ) -> dict:
     """Time ``iters`` calls of the serve path (normalize → decode →
     denormalize → tile mask) on ``batch`` random viewers, after one warm-up
@@ -118,19 +123,23 @@ def serve_bench(
     random unit-vector
     peer futures per viewer (``peers`` >= 0 overrides the preset's K), as
     the JAX ``serve-bench`` draws them; ``peer_align`` sets the time-aligned
-    peer context (``--peer-align``). The fusion family gets one N(0, 1)
+    peer context (``--peer-align``); ``h_in``/``h_out`` override the
+    model's window lengths (``--h-in``/``--h-out``). ``impl`` is JAX's
+    name: "fused" the hand-written kernels, "xla" the plain PyTorch path
+    (``make_predict_fn(impl="plain")``). The fusion family gets one N(0, 1)
     feature vector of width ``FEATURE_DIM`` per viewer, as
     ``scripts/bench_matrix.py`` draws them. Turns TF32 off for the process
     (``exact_f32_matmul``)."""
     from . import infer
-    from .config import get_preset
     from .ops.fused_lstm import exact_f32_matmul
     from .params import params_from_numpy
 
     device = _device(str(device))
     exact_f32_matmul()  # the plain impl in the f32 the kernel computes
-    cfg = get_preset(preset, **({"n_other_users": peers} if peers >= 0 else {}),
-                     **({"model_peer_align": True} if peer_align else {}))
+    if impl not in SERVE_IMPLS:
+        raise ValueError(f"impl must be one of {SERVE_IMPLS}, got {impl!r}")
+    cfg = _preset_cfg(argparse.Namespace(preset=preset, peers=peers, peer_align=peer_align,
+                                         model_h_in=h_in, model_h_out=h_out))
     params = params_from_numpy(bench_params_np(cfg, seed), device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -148,7 +157,7 @@ def serve_bench(
         n_features = FEATURE_DIM
         x["features"] = torch.randn(batch, FEATURE_DIM, generator=gen, device=device)
     serve = infer.make_predict_fn(
-        params, cfg, device=device, with_tiles=True, impl=impl
+        params, cfg, device=device, with_tiles=True, impl="plain" if impl == "xla" else impl
     )
     res = {"preset": preset, "impl": impl, "batch": batch, "iters": iters,
            "horizon": cfg.model.h_out, "peers": cfg.n_other_users if _with_peers(cfg) else 0,
@@ -211,8 +220,9 @@ def _build_parser() -> argparse.ArgumentParser:
     sb.add_argument("--batch", type=int, default=4096)
     sb.add_argument("--iters", type=int, default=30)
     sb.add_argument(
-        "--impl", default="fused", choices=("fused", "plain"),
-        help="fused = the hand-written CUDA serve kernel; plain = PyTorch ops",
+        "--impl", default="fused", choices=SERVE_IMPLS,
+        help="fused = the hand-written CUDA serve kernels (the default: the card's path); "
+        "xla = the plain PyTorch path",
     )
     sb.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
     sb.add_argument("--seed", type=int, default=0)
@@ -253,6 +263,20 @@ def _build_parser() -> argparse.ArgumentParser:
             help="cross-viewer context size K for this run (the params are "
             "K-agnostic); -1 = the preset's K",
         )
+        # as in JAX: --h-in/--h-out (like --peer-align) change what the
+        # params mean, so they are part of the model hash and every
+        # subcommand that builds or loads the model takes them
+        cp.add_argument(
+            "--h-in", type=int, dest="model_h_in", metavar="T",
+            help="override the preset's input-window length (model horizon, not the "
+            "prepare-data window flag); part of the model hash — must match between "
+            "train and eval/serve",
+        )
+        cp.add_argument(
+            "--h-out", type=int, dest="model_h_out", metavar="T",
+            help="override the preset's prediction horizon; part of the model hash — "
+            "must match between train and eval/serve",
+        )
     return p
 
 
@@ -260,13 +284,24 @@ def _overrides(args, **over) -> dict:
     """The preset overrides every subcommand shares: ``--peers`` (>= 0)
     sets ``n_other_users``, a data and serving-schema knob that is not part
     of the model hash; ``--peer-align`` sets ``model_peer_align`` (the
-    cross_user family's time-aligned peer context, part of the model hash),
-    as the JAX CLI does."""
+    cross_user family's time-aligned peer context) and ``--h-in``/``--h-out``
+    set ``model_h_in``/``model_h_out``, all three part of the model hash, as
+    the JAX CLI's ``_preset_cfg`` does."""
     if getattr(args, "peer_align", False):
         over["model_peer_align"] = True
+    for k in ("model_h_in", "model_h_out"):
+        if getattr(args, k, None) is not None:
+            over[k] = getattr(args, k)
     if getattr(args, "peers", -1) >= 0:
         over["n_other_users"] = args.peers
     return over
+
+
+def _preset_cfg(args, **over):
+    """The preset of ``args`` with :func:`_overrides` and ``over``."""
+    from .config import get_preset
+
+    return get_preset(args.preset, **_overrides(args, **over))
 
 
 def _device(name: str) -> torch.device:
@@ -431,13 +466,12 @@ def cmd_serve_bench(args):
     print(json.dumps(serve_bench(
         preset=args.preset, batch=args.batch, iters=args.iters,
         impl=args.impl, device=args.device, seed=args.seed, peers=args.peers,
-        peer_align=args.peer_align,
+        peer_align=args.peer_align, h_in=args.model_h_in, h_out=args.model_h_out,
     )))
 
 
 def cmd_train(args):
     from . import train as TR
-    from .config import get_preset
     from .models import get_family
     from .ops.fused_lstm import exact_f32_matmul
 
@@ -449,7 +483,7 @@ def cmd_train(args):
             if getattr(args, k) is not None}
     if args.bf16:  # bf16 params: part of the model hash, so eval refuses the checkpoint, as in JAX
         over["model_param_dtype"] = "bfloat16"
-    cfg = get_preset(args.preset, **_overrides(args, **over))
+    cfg = _preset_cfg(args, **over)
     fam = get_family(cfg.model_family)
     device = _device(args.device)
     exact_f32_matmul()
@@ -491,11 +525,10 @@ def cmd_train(args):
 def cmd_eval(args):
     from . import evaluate as E
     from . import train as TR
-    from .config import get_preset
     from .models import get_family
     from .ops.fused_lstm import exact_f32_matmul
 
-    cfg = get_preset(args.preset, **_overrides(args))
+    cfg = _preset_cfg(args)
     fam = get_family(cfg.model_family)
     device = _device(args.device)
     exact_f32_matmul()

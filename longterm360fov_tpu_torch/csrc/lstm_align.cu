@@ -352,25 +352,27 @@ int align_peer_bwd(const void* pxs, const void* pwt, const void* wp,
 int align_dec_dw(const void* h0, const void* y0, const void* teacher,
                  const void* coins, const void* php, const void* pwt,
                  const void* ys, const void* const* hs, const void* const* cs,
-                 const void* const* gs, const void* const* dg, void* partial,
-                 void* const* dw, void* const* db, int batch, int t_len, int d,
-                 int ctx_dim, int n_peers, int hidden, int layers, int splits,
-                 int bf16, int cbf16, void* stream) {
-  if (php == nullptr || pwt == nullptr || n_peers < 1 || ctx_dim < 1)
-    return (int)cudaErrorInvalidValue;
+                 const void* const* gs, const void* const* dg, void* zpack,
+                 void* partial, void* const* dw, void* const* db, int batch,
+                 int t_len, int d, int ctx_dim, int n_peers, int hidden,
+                 int layers, int splits, int bf16, int cbf16, int pack_layer,
+                 void* stream) {
+  if (php == nullptr || pwt == nullptr || n_peers < 1 || ctx_dim < 32 || ctx_dim % 32)
+    return (int)cudaErrorInvalidValue;  // C as the peer kernels take it
   return ss_dw_layers<DW_ALIGN>(h0, y0, teacher, coins, nullptr, php, pwt, n_peers, ys,
-                      hs, cs, gs, dg, partial, dw, db, batch, t_len, d, ctx_dim,
-                      hidden, layers, splits, bf16, cbf16, stream);
+                      hs, cs, gs, dg, zpack, partial, dw, db, batch, t_len, d, ctx_dim,
+                      hidden, layers, splits, bf16, cbf16, pack_layer, stream);
 }
 
 // dWp (d + ctx_dim, 4·ctx_dim) and dbp over the peers·t_len rows:
 // z = [pxs_t, h_{t-1}] (h0 = zeros (peers, ctx_dim) f32 at t = 0), the
-// teacher-forced loader. `partial` holds splits x (d + ctx_dim + 1) x
-// 4·ctx_dim floats.
+// teacher-forced loader. zpack holds peers·t_len x dw_zld(d, ctx_dim) values
+// of the compute type, `partial` splits x (d + ctx_dim + 1) x 4·ctx_dim
+// floats. pack_only: only the pack pass, into zpack.
 int align_peer_dw(const void* pxs, const void* h0, const void* php,
-                  const void* dpg, void* partial, void* dw, void* db,
+                  const void* dpg, void* zpack, void* partial, void* dw, void* db,
                   int peers, int t_len, int d, int ctx_dim, int splits,
-                  int bf16, int cbf16, void* stream) {
+                  int bf16, int cbf16, int pack_only, void* stream) {
   if (peers < 1 || t_len < 1 || d < 1 || ctx_dim < 32 || ctx_dim % 32 ||
       splits < 1 || (long long)peers * t_len >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -379,9 +381,9 @@ int align_peer_dw(const void* pxs, const void* h0, const void* php,
   a.h0 = static_cast<const float*>(h0);
   a.hs = php;
   a.dg = static_cast<const float*>(dpg);
-  return (int)dw_layer<DW_TF>(a, static_cast<float*>(partial), static_cast<float*>(dw),
-                       static_cast<float*>(db), peers, t_len, d, ctx_dim, d,
-                       splits, bf16 != 0, cbf16 != 0,
+  return (int)dw_layer<DW_TF>(a, zpack, static_cast<float*>(partial), static_cast<float*>(dw),
+                       static_cast<float*>(db), peers, t_len, d, ctx_dim, d, d,
+                       splits, bf16 != 0, cbf16 != 0, pack_only != 0,
                        static_cast<cudaStream_t>(stream));
 }
 

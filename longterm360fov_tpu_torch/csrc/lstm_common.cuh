@@ -11,14 +11,15 @@
 //     a layer input held k-major (K, R) in shared memory, and accumulate<NG>,
 //     the FMA loop that reads W rows with 16-byte loads;
 //   * fwd_layer_step, one forward layer-step with its residual stores;
-//   * the deterministic dW/db reduction: lstm_dw_partial_kernel over slices
-//     of the (b, t) rows, then lstm_dw_sum_kernel, which adds the slices in a
-//     fixed order (no float atomics). Its z loader builds
-//     [h_{t-1}, input_t, 1] for the teacher-forced LSTM and, given coins (a
-//     second instance of the kernel), for layer 0 of the scheduled-sampling
-//     decoder, whose input is [x_t, ctx] with x_t = coin_t > 0 ? teacher_t :
-//     y_{t-1}, rebuilt from the forward's outputs as the TPU backward
-//     rebuilds it.
+//   * the deterministic dW/db reduction: lstm_dw_pack_kernel writes each
+//     layer's z = [h_{t-1}, input_t, 1] once, in the compute type, building
+//     it with the MODE loader (the teacher-forced LSTM; layer 0 of the
+//     scheduled-sampling decoder, whose input [x_t, ctx] with x_t = coin_t >
+//     0 ? teacher_t : y_{t-1} is rebuilt from the forward's outputs as the
+//     TPU backward rebuilds it; its lockstep variant, ctx summed from the
+//     peers' residual h); lstm_dw_partial_kernel sums zᵀ·dgates over slices
+//     of the (b, t) rows, on tensor cores in bf16 and exact FMAs in f32;
+//     lstm_dw_sum_kernel adds the slices in a fixed order (no float atomics).
 // lstm_train.cu's header says what bounds these kernels on the card and how
 // the design answers it.
 
@@ -27,13 +28,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 #include "compute_type.cuh"
 
 #define MAX_LAYERS 8
 #define TR 4        // batch rows per thread
 #define TJ 4        // hidden units per thread: one float4 of each gate
-#define DW_T 128    // dW tile: rows (z features) and columns (gates)
-#define DW_K 16     // (b, t) rows per shared-memory stage of the reduction
 
 // ---------------------------------------------------------------------------
 // residual type: f32 or bf16 (round to nearest even, as torch and XLA cast)
@@ -296,8 +297,13 @@ __device__ __forceinline__ void input_grad(const float* dg_s,
 }
 
 // ---------------------------------------------------------------------------
-// dW / db reduction
+// dW / db reduction: a pack pass, then a split-K product on tiles of
+// DW_F features x DW_T gate columns, then the fixed-order sum of the slices
 // ---------------------------------------------------------------------------
+
+#define DW_T 128  // dW tile: gate columns
+#define DW_F 144  // dW tile: z features, 9 x 16 (nine m16 tiles of mma.sync)
+#define DW_V 8    // z features a pack thread builds and stores (16 bytes in bf16)
 
 struct DwArgs {
   const float* xs;     // (B, T, D): z's input part for layer 0 (teacher-forced)
@@ -326,175 +332,373 @@ struct DwArgs {
 // scheduled-sampling decoder with a static or a lockstep-peer context
 enum DwMode { DW_TF = 0, DW_SS = 1, DW_ALIGN = 2 };
 
-// feature m < D + C of the scheduled-sampling decoder's layer-0 input
-// [x_t, ctx] at row q = b * T + t
-template <typename RT, int MODE>
-__device__ __forceinline__ float ss_in(const DwArgs& a, int q, int b, int t,
-                                       int m, int B, int T, int D) {
-  if (m >= D) {
-    if constexpr (MODE == DW_ALIGN) {
-      const RT* h = static_cast<const RT*>(a.php) +
-                    ((size_t)b * a.K * T + t) * a.C + (m - D);
-      float s = 0.0f;
-      for (int k = 0; k < a.K; ++k)
-        s += Res<RT>::ld(h + (size_t)k * T * a.C) * a.pwt[(size_t)b * a.K + k];
-      return s;
-    } else {
-      return a.ctx[(size_t)b * a.C + (m - D)];
-    }
-  }
-  if (a.coins[(size_t)t * B + b] > 0.0f)
-    return a.teacher[((size_t)t * B + b) * D + m];
-  return t > 0 ? a.ys[(size_t)(q - 1) * D + m] : a.y0[(size_t)b * D + m];
+// 8 consecutive values of a residual-type (or f32) vector, widened to f32:
+// one 16-byte load in bf16, two in f32
+template <typename RT>
+__device__ __forceinline__ void ld8(const RT* p, float (&v)[DW_V]);
+
+template <>
+__device__ __forceinline__ void ld8(const float* p, float (&v)[DW_V]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-// The reduction orders z's features h first: feature f < H is h_{t-1}[f],
-// H <= f < H + in is input_t[f - H], so the h part is whole float4 runs at
-// any input width; feature H + in is the constant 1, whose row of the
-// product is db. Output row of feature f: f < H ? in + f : f - H (db is
-// row in + H, after dW).
-//
-// z[q][f .. f + 3] of row q = b * T + t (zero past the features). MODE (a
-// DwMode) is a template parameter, so that the teacher-forced kernel keeps
-// its short loader and its registers.
+// bf16 → f32 is exact: the bf16 bits are the f32's upper half. Bit
+// operations on values, not conversions through addresses, which would put
+// the staging words in local memory.
+template <>
+__device__ __forceinline__ void ld8(const __nv_bfloat16* p, float (&v)[DW_V]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// two f32 rounded to bf16 (nearest even), low one first, as one word
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+// 8 values stored in the compute type: two 16-byte stores in f32, one in bf16
+__device__ __forceinline__ void st8(float* p, const float (&v)[DW_V]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void st8(__nv_bfloat16* p, const float (&v)[DW_V]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]), bf16x2(v[4], v[5]), bf16x2(v[6], v[7]));
+}
+
+// input feature m of the layer at row q = b * T + t, one by one: o·tanh(c)
+// of the layer below; or layer 0's input of the scheduled-sampling decoder,
+// [x_t, ctx] with x_t = coin_t > 0 ? teacher_t : y_{t-1} and the static
+// context; or xs. The lockstep context never comes here: it is whole
+// 16-byte runs (C % 32 == 0, which align_dec_dw checks), built by z_chunk.
 template <typename RT, int MODE>
-__device__ __forceinline__ void z_quad(const DwArgs& a, int q, int f, int B,
-                                       int T, int D, int H, int in,
-                                       float (&v)[4]) {
-  if (f < H) {
-    const int b = q / T;
-    if (q - b * T > 0)
-      Res<RT>::ld4(static_cast<const RT*>(a.hs) + (size_t)(q - 1) * H + f, v);
+__device__ __forceinline__ float z_in(const DwArgs& a, int q, int b, int t,
+                                      int m, int B, int T, int D, int H) {
+  if (a.gs_in != nullptr)
+    return Res<RT>::ld(static_cast<const RT*>(a.gs_in) + (size_t)q * 4 * H + 3 * H + m) *
+           tanhf(Res<RT>::ld(static_cast<const RT*>(a.cs_in) + (size_t)q * H + m));
+  if constexpr (MODE == DW_TF) {
+    return a.xs[(size_t)q * D + m];
+  } else {
+    if (MODE == DW_SS && m >= D) return a.ctx[(size_t)b * a.C + (m - D)];
+    if (a.coins[(size_t)t * B + b] > 0.0f) return a.teacher[((size_t)t * B + b) * D + m];
+    return t > 0 ? a.ys[(size_t)(q - 1) * D + m] : a.y0[(size_t)b * D + m];
+  }
+}
+
+// The packed z of row q = b * T + t, in output order of features f:
+//   [h_{t-1} (H) | input[nw:] (in - nw) | input[:nw] (nw) | 1 | 0 ...]
+// with nw = D at layer 0 (x_t; its context, if any, is the wide part) and 0
+// above (the whole input, o·tanh(c), is wide), so that the wide parts are
+// whole 16-byte runs at any input width: h, the context and o·tanh(c) are
+// read with 16-byte loads, the lockstep context summed over the K peers in
+// order from them; the few narrow features (and a static context's ragged
+// end) one by one. v: features f0 .. f0 + 7.
+template <typename RT, int MODE>
+__device__ __forceinline__ void z_chunk(const DwArgs& a, int q, int f0, int B,
+                                        int T, int D, int H, int in, int nw,
+                                        float (&v)[DW_V]) {
+  const int b = q / T, t = q - b * T;
+  if (f0 < H) {  // H % 32 == 0: whole chunks of h_{t-1}
+    if (t > 0)
+      ld8(static_cast<const RT*>(a.hs) + (size_t)(q - 1) * H + f0, v);
     else
-      F::ld4(a.h0 + (size_t)b * H + f, v);
-  } else if (f - H >= in) {  // the constant feature of db
-    v[0] = f - H == in ? 1.0f : 0.0f;
-    v[1] = v[2] = v[3] = 0.0f;
-  } else if (a.gs_in != nullptr) {  // o·tanh(c) of the layer below
-    const int m = f - H;
-    float o[4], c[4];
-    Res<RT>::ld4(static_cast<const RT*>(a.gs_in) + (size_t)q * 4 * H + 3 * H + m, o);
-    Res<RT>::ld4(static_cast<const RT*>(a.cs_in) + (size_t)q * H + m, c);
+      ld8(a.h0 + (size_t)b * H + f0, v);
+    return;
+  }
+  const int u0 = f0 - H, wide = in - nw;
+  if (u0 + DW_V <= wide) {
+    if (a.gs_in != nullptr) {  // o·tanh(c) of the layer below (nw = 0)
+      float o[DW_V], c[DW_V];
+      ld8(static_cast<const RT*>(a.gs_in) + (size_t)q * 4 * H + 3 * H + u0, o);
+      ld8(static_cast<const RT*>(a.cs_in) + (size_t)q * H + u0, c);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = o[i] * tanhf(c[i]);
-  } else if (MODE != DW_TF) {  // [x_t, ctx]
-    const int b = q / T, t = q - b * T;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = f - H + i;
-      v[i] = m < in ? ss_in<RT, MODE>(a, q, b, t, m, B, T, D) : (m == in ? 1.0f : 0.0f);
+      for (int i = 0; i < DW_V; ++i) v[i] = o[i] * tanhf(c[i]);
+      return;
     }
-  } else {  // xs, D floats a row
+    if constexpr (MODE == DW_ALIGN) {  // ctx[u0 .. u0 + 7], k in order
+      const RT* h = static_cast<const RT*>(a.php) + ((size_t)b * a.K * T + t) * a.C + u0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = f - H + i;
-      v[i] = m < in ? a.xs[(size_t)q * D + m] : (m == in ? 1.0f : 0.0f);
+      for (int i = 0; i < DW_V; ++i) v[i] = 0.0f;
+      for (int k = 0; k < a.K; ++k) {
+        float hk[DW_V];
+        ld8(h + (size_t)k * T * a.C, hk);
+        const float w = a.pwt[(size_t)b * a.K + k];
+#pragma unroll
+        for (int i = 0; i < DW_V; ++i) v[i] = fmaf(hk[i], w, v[i]);
+      }
+      return;
+    } else if constexpr (MODE == DW_SS) {
+      if (a.C % 4 == 0) {  // the static context, f32
+        ld8(a.ctx + (size_t)b * a.C + u0, v);
+        return;
+      }
     }
+  }
+#pragma unroll
+  for (int i = 0; i < DW_V; ++i) {
+    const int u = u0 + i;
+    if (u < in)
+      v[i] = z_in<RT, MODE>(a, q, b, t, u < wide ? nw + u : u - wide, B, T, D, H);
+    else
+      v[i] = u == in ? 1.0f : 0.0f;  // the constant feature of db, then zeros
   }
 }
 
-#define DW_Q (DW_K * DW_T / 4 / 256)  // float4 runs of each operand a thread loads
-
-// Block (n tile, f tile, slice s): partial[s][row(f)][n] = sum over the
-// slice's rows q of z[q][f] * dg[q][n], for the M + 1 features of z and the
-// constant (M = in + H). In the bf16 compute type z and dg are rounded as
-// they are staged, and the constant's row, db, is summed apart from the
-// unrounded dg: each thread stages one column quad (e % 32 == tid % 32) and
-// sums it, and the block adds its 8 warps' sums in order.
+// Pack pass: zp (B·T, zld) in the compute type, zld = in + H + 1 rounded up
+// to 8; a thread per 8 features of a row, consecutive threads along the row,
+// so that loads and stores are coalesced. Every source of z is read once.
+// One launch covers `rows` rows from q0, rows · zld / 8 < 2^31: the index
+// math stays 32-bit (a 64-bit division is a subroutine call).
 template <typename RT, int MODE, typename CT>
-__global__ void __launch_bounds__(256, 2)
-    lstm_dw_partial_kernel(const DwArgs a, float* __restrict__ partial, int B,
-                           int T, int D, int H, int in, int chunk) {
-  constexpr bool ROUND = !std::is_same<CT, float>::value;
-  __shared__ __align__(16) float As[DW_K][DW_T];
-  __shared__ __align__(16) float Bs[DW_K][DW_T];
-  float db_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // ROUND: Σ of the unrounded dg
-  const int N = 4 * H, M = in + H;  // features: M, and the constant
-  const int n0 = blockIdx.x * DW_T, f0 = blockIdx.y * DW_T;
-  const int Q = B * T;
-  const int q_begin = blockIdx.z * chunk;
-  const int q_end = min(q_begin + chunk, Q);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const bool active = f0 + ty * 4 <= M;  // warps past a short last tile rest
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+__global__ void __launch_bounds__(256)
+    lstm_dw_pack_kernel(const DwArgs a, CT* __restrict__ zp, int q0, int rows, int B,
+                        int T, int D, int H, int in, int nw, int zld) {
+  const int per_row = zld / DW_V, total = rows * per_row;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
+    const int q = q0 + i / per_row, f0 = (i % per_row) * DW_V;
+    float v[DW_V];
+    z_chunk<RT, MODE>(a, q, f0, B, T, D, H, in, nw, v);
+    st8(zp + (size_t)q * zld + f0, v);  // rounded to CT as it is stored
+  }
+}
 
-  // run e = tid + 256 * i of a stage: row kk = e / 32, columns 4 * (e % 32)
-  float za[DW_Q][4], ga[DW_Q][4];
-  int q0 = q_begin;
-#define DW_LOAD                                                                \
-  _Pragma("unroll") for (int i = 0; i < DW_Q; ++i) {                           \
-    const int e = tid + 256 * i, q = q0 + e / 32, c = 4 * (e % 32);            \
-    za[i][0] = za[i][1] = za[i][2] = za[i][3] = 0.0f;                          \
-    ga[i][0] = ga[i][1] = ga[i][2] = ga[i][3] = 0.0f;                          \
-    if (q < q_end) {                                                           \
-      if (f0 + c <= M) z_quad<RT, MODE>(a, q, f0 + c, B, T, D, H, in, za[i]);  \
-      F::ld4(a.dg + (size_t)q * N + n0 + c, ga[i]);                            \
-    }                                                                          \
-  }
-  if (q0 < q_end) {
-    DW_LOAD
-  }
-  for (; q0 < q_end;) {
+// output row of packed feature f: dW's rows are [input (in), h (H)], db is
+// row in + H
+__device__ __forceinline__ int dw_row(int f, int H, int in, int nw) {
+  if (f < H) return in + f;
+  const int u = f - H, wide = in - nw;
+  return u < wide ? nw + u : u < in ? u - wide : in + H;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(ok ? 16 : 0));  // src size 0: 16 bytes of zeros
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The product's tile per compute type. Both tiers: a block of 256 threads
+// owns DW_F features x DW_T columns over one slice of the rows, staged KQ
+// rows at a time in two shared-memory buffers (the next stage's loads in
+// flight while the current one computes). f32: exact FMAs, a thread's 9
+// features x 8 columns (4 + 4 + 1 features: ty*4, 64 + ty*4, 128 + ty;
+// columns tx*4, 64 + tx*4), z and dgates staged by cp.async as they are.
+// bf16: mma.sync m16n8k16 with f32 accumulators, a warp's 144 features x
+// 16 columns (nine m16 by two n8 tiles); z arrives packed in bf16
+// (cp.async), dgates in f32 through registers, rounded as they are staged,
+// and db summed from the unrounded values.
+template <typename CT>
+struct DwTile;
+
+template <>
+struct DwTile<float> {
+  static constexpr int KQ = 16;
+  struct Smem {
+    float z[2][16][DW_F];
+    float g[2][16][DW_T];
+  };
+};
+
+template <>
+struct DwTile<__nv_bfloat16> {
+  static constexpr int KQ = 32;
+  static constexpr int ZS = DW_F + 8;  // row strides: ldmatrix's 8 rows fall on
+  static constexpr int GS = DW_T + 8;  // distinct banks (304 and 272 bytes)
+  struct Smem {  // bf16 bits
+    unsigned short z[2][32][ZS];
+    unsigned short g[2][32][GS];
+  };
+};
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Block (column tile, feature tile, slice s): partial[s][row(f)][n] = Σ over
+// the slice's rows q of zp[q][f] · dg[q][n], for the M + 1 packed features
+// (M = in + H) of its tile; the bf16 tier writes the constant's row, db,
+// from its own sum of the unrounded dg (its 8 warps' sums added in order).
+template <typename CT>
+__global__ void __launch_bounds__(256, 2)
+    lstm_dw_partial_kernel(const CT* __restrict__ zp, const float* __restrict__ dg,
+                           float* __restrict__ partial, int Q, int H, int in,
+                           int nw, int zld, int chunk) {
+  using Tile = DwTile<CT>;
+  constexpr int KQ = Tile::KQ;
+  constexpr bool BF = !std::is_same<CT, float>::value;
+  constexpr int ZV = 16 / sizeof(CT);  // z features per 16-byte copy
+  __shared__ __align__(16) typename Tile::Smem sm;
+  const int N = 4 * H, M = in + H;
+  const int n0 = blockIdx.x * DW_T, f0 = blockIdx.y * DW_F;
+  const int q_begin = blockIdx.z * chunk, q_end = min(q_begin + chunk, Q);
+  const int tid = threadIdx.x;
+
+  // z: KQ rows x DW_F features, 16 bytes a copy; past the rows or zld, zeros
+  auto load_z = [&](int buf, int q0) {
+    for (int i = tid; i < KQ * (DW_F / ZV); i += 256) {
+      const int r = i / (DW_F / ZV), f = (i % (DW_F / ZV)) * ZV;
+      const bool ok = q0 + r < q_end && f0 + f < zld;
+      cp_async16(&sm.z[buf][r][f], ok ? zp + (size_t)(q0 + r) * zld + f0 + f : zp, ok);
+    }
+  };
+
+  if constexpr (!BF) {
+    float acc[9][8];
 #pragma unroll
-    for (int i = 0; i < DW_Q; ++i) {
-      const int e = tid + 256 * i;
-      if constexpr (ROUND) {
+    for (int i = 0; i < 9; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          db_acc[c] += ga[i][c];
-          za[i][c] = cround<CT>(za[i][c]);
-          ga[i][c] = cround<CT>(ga[i][c]);
-        }
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    const int tx = tid % 16, ty = tid / 16;
+    auto load = [&](int buf, int q0) {
+      load_z(buf, q0);
+#pragma unroll
+      for (int j = 0; j < KQ * DW_T / 4 / 256; ++j) {
+        const int i = tid + 256 * j, r = i / (DW_T / 4), c = (i % (DW_T / 4)) * 4;
+        const bool ok = q0 + r < q_end;
+        cp_async16(&sm.g[buf][r][c], ok ? dg + (size_t)(q0 + r) * N + n0 + c : dg, ok);
       }
-      F::st4(&As[e / 32][4 * (e % 32)], za[i]);
-      F::st4(&Bs[e / 32][4 * (e % 32)], ga[i]);
-    }
-    __syncthreads();
-    q0 += DW_K;
-    if (q0 < q_end) {  // in flight during the FMAs below
-      DW_LOAD
-    }
-    if (active) {
+      cp_async_commit();
+    };
+    int buf = 0;
+    if (q_begin < q_end) load(0, q_begin);
+    for (int q0 = q_begin; q0 < q_end; q0 += KQ, buf ^= 1) {
+      cp_async_wait_all();
+      __syncthreads();  // this stage landed; everyone is done with the other buffer
+      if (q0 + KQ < q_end) load(buf ^ 1, q0 + KQ);
 #pragma unroll
-      for (int kk = 0; kk < DW_K; ++kk) {
-        float av[8], bv[8];
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-        av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
-        av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
-        bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-        bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+      for (int kk = 0; kk < KQ; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&sm.z[buf][kk][ty * 4]);
+        const float4 a1 = *reinterpret_cast<const float4*>(&sm.z[buf][kk][64 + ty * 4]);
+        const float a8 = sm.z[buf][kk][128 + ty];
+        const float4 b0 = *reinterpret_cast<const float4*>(&sm.g[buf][kk][tx * 4]);
+        const float4 b1 = *reinterpret_cast<const float4*>(&sm.g[buf][kk][64 + tx * 4]);
+        const float av[9] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a8};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 9; ++i)
 #pragma unroll
           for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
     }
-    __syncthreads();
-  }
-#undef DW_LOAD
-
-  float* P = partial + (size_t)blockIdx.z * (M + 1) * N;
+    float* P = partial + (size_t)blockIdx.z * (M + 1) * N;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int f = f0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (f > M || (ROUND && f == M)) continue;
-    const int m = f < H ? in + f : f < M ? f - H : M;  // output row
-    *reinterpret_cast<float4*>(P + (size_t)m * N + n0 + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(P + (size_t)m * N + n0 + 64 + tx * 4) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
-  if constexpr (ROUND) {
-    if (f0 + DW_T > M) {  // this f tile holds the constant: write db
-      float* red = &As[0][0];  // free after the loop's last barrier
-      F::st4(red + (tid / 32) * DW_T + 4 * (tid % 32), db_acc);
+    for (int i = 0; i < 9; ++i) {
+      const int f = f0 + (i < 4 ? ty * 4 + i : i < 8 ? 64 + ty * 4 + i - 4 : 128 + ty);
+      if (f > M) continue;
+      float* row = P + (size_t)dw_row(f, H, in, nw) * N + n0;
+      *reinterpret_cast<float4*>(row + tx * 4) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(row + 64 + tx * 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  } else {
+    float acc[9][2][4];
+#pragma unroll
+    for (int i = 0; i < 9; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+    float db_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // Σ of the unrounded dg
+    const int warp = tid / 32, lane = tid % 32, mat = lane >> 3, r8 = lane & 7;
+    // dgates: KQ rows x DW_T columns f32, four 16-byte loads a thread, run
+    // e = tid + 256 * i: row e / 32 (= warp + 8 i), columns 4 * lane
+    constexpr int GQ = KQ * DW_T / 4 / 256;
+    float g[GQ][4];
+    auto load_g = [&](int q0) {
+#pragma unroll
+      for (int i = 0; i < GQ; ++i) {
+        const int q = q0 + warp + 8 * i;
+        if (q < q_end) {
+          const float4 v = *reinterpret_cast<const float4*>(dg + (size_t)q * N + n0 + 4 * lane);
+          g[i][0] = v.x; g[i][1] = v.y; g[i][2] = v.z; g[i][3] = v.w;
+        } else {
+          g[i][0] = g[i][1] = g[i][2] = g[i][3] = 0.0f;
+        }
+      }
+    };
+    auto store_g = [&](int buf) {
+#pragma unroll
+      for (int i = 0; i < GQ; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) db_acc[c] += g[i][c];
+        *reinterpret_cast<uint2*>(&sm.g[buf][warp + 8 * i][4 * lane]) =
+            make_uint2(bf16x2(g[i][0], g[i][1]), bf16x2(g[i][2], g[i][3]));
+      }
+    };
+    int buf = 0;
+    if (q_begin < q_end) {
+      load_z(0, q_begin);
+      cp_async_commit();
+      load_g(q_begin);
+    }
+    for (int q0 = q_begin; q0 < q_end; q0 += KQ, buf ^= 1) {
+      store_g(buf);  // last read two stages ago, before the previous barrier
+      cp_async_wait_all();
+      __syncthreads();
+      if (q0 + KQ < q_end) {
+        load_z(buf ^ 1, q0 + KQ);
+        cp_async_commit();
+        load_g(q0 + KQ);  // in flight during the products below
+      }
+#pragma unroll
+      for (int kk = 0; kk < KQ; kk += 16) {
+        // B = dg (k = rows, n = the warp's 16 columns): matrices (k 0-7, n 0-7),
+        // (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+        unsigned b[4];
+        ldsm_x4_trans(b, &sm.g[buf][kk + (mat & 1) * 8 + r8][warp * 16 + (mat >> 1) * 8]);
+#pragma unroll
+        for (int mt = 0; mt < 9; ++mt) {
+          // A = zᵀ (m = features, k = rows): matrices (m 0-7, k 0-7),
+          // (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
+          unsigned a4[4];
+          ldsm_x4_trans(a4, &sm.z[buf][kk + (mat >> 1) * 8 + r8][mt * 16 + (mat & 1) * 8]);
+          mma_bf16(acc[mt][0], a4, b[0], b[1]);
+          mma_bf16(acc[mt][1], a4, b[2], b[3]);
+        }
+      }
+    }
+    float* P = partial + (size_t)blockIdx.z * (M + 1) * N;
+#pragma unroll
+    for (int mt = 0; mt < 9; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // accumulator rows lane / 4 and + 8
+        const int f = f0 + mt * 16 + (lane >> 2) + 8 * h;
+        if (f >= M) continue;  // the constant's row is db, below
+        float* row = P + (size_t)dw_row(f, H, in, nw) * N + n0 + warp * 16 + (lane & 3) * 2;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          *reinterpret_cast<float2*>(row + nt * 8) = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
+    if (f0 <= M && M < f0 + DW_F) {  // this feature tile holds the constant: db
+      __syncthreads();  // every warp is done with the buffers
+      float* red = reinterpret_cast<float*>(&sm.z[0][0][0]);
+      *reinterpret_cast<float4*>(red + warp * DW_T + 4 * lane) =
+          make_float4(db_acc[0], db_acc[1], db_acc[2], db_acc[3]);
       __syncthreads();
       if (tid < DW_T) {
         float s = 0.0f;
@@ -521,33 +725,59 @@ __global__ void lstm_dw_sum_kernel(const float* __restrict__ partial, int S,
   }
 }
 
+// zld: the packed z's row length, in + H + 1 rounded up to DW_V
+static inline int dw_zld(int in, int hidden) { return (in + hidden + 1 + DW_V - 1) / DW_V * DW_V; }
+
 // dW (in + H, 4H) and db (4H,) of one layer with the z loader MODE (a
 // DwMode; a template parameter, so that each source instantiates only the
-// loaders it uses): the partial sums over `splits` slices of the B·T rows
-// into `partial` (splits x (in + H + 1) x 4H floats), then their sum in a
-// fixed order; residuals bf16 (bf16) or f32, compute bf16 (cbf16) or f32.
+// loaders it uses), layer input width `in`, of which the first nw features
+// are narrow (x_t at layer 0, one by one; the rest, 16-byte runs): the pack
+// pass into zp (batch·t_len x dw_zld(in, hidden) values of the compute type),
+// then unless pack_only the partial sums over `splits` slices of the rows into
+// `partial` (splits x (in + H + 1) x 4H floats) and their sum in a fixed
+// order; residuals bf16 (bf16) or f32, compute bf16 (cbf16) or f32.
 // Returns cudaGetLastError().
 template <int MODE>
-static inline cudaError_t dw_layer(const DwArgs& a, float* partial, float* dw,
+static inline cudaError_t dw_layer(const DwArgs& a, void* zp, float* partial, float* dw,
                                    float* db, int batch, int t_len, int d,
-                                   int hidden, int in, int splits, bool bf16,
-                                   bool cbf16, cudaStream_t st) {
-  const int Q = batch * t_len, N = 4 * hidden, M = in + hidden;
-  int chunk = (Q + splits - 1) / splits;
-  chunk = (chunk + DW_K - 1) / DW_K * DW_K;
-  const dim3 grid(N / DW_T, (M + 1 + DW_T - 1) / DW_T, splits);
+                                   int hidden, int in, int nw, int splits, bool bf16,
+                                   bool cbf16, bool pack_only, cudaStream_t st) {
+  const int Q = batch * t_len, N = 4 * hidden, M = in + hidden, zld = dw_zld(in, hidden);
   using BF = __nv_bfloat16;
-  const auto kernel =
-      bf16 ? (cbf16 ? lstm_dw_partial_kernel<BF, MODE, BF>
-                    : lstm_dw_partial_kernel<BF, MODE, float>)
-           : (cbf16 ? lstm_dw_partial_kernel<float, MODE, BF>
-                    : lstm_dw_partial_kernel<float, MODE, float>);
-  kernel<<<grid, 256, 0, st>>>(a, partial, batch, t_len, d, hidden, in, chunk);
+  const int span = (1 << 30) / (zld / DW_V);  // rows a pack launch covers
+  for (int q0 = 0; q0 < Q; q0 += span) {
+    const int rows = std::min(span, Q - q0);
+    const int pgrid = std::min((rows * (zld / DW_V) + 255) / 256, 1 << 20);
+#define DW_PACK(RT, CT)                                              \
+  lstm_dw_pack_kernel<RT, MODE, CT><<<pgrid, 256, 0, st>>>(          \
+      a, static_cast<CT*>(zp), q0, rows, batch, t_len, d, hidden, in, nw, zld)
+    if (bf16 && cbf16)
+      DW_PACK(BF, BF);
+    else if (bf16)
+      DW_PACK(BF, float);
+    else if (cbf16)
+      DW_PACK(float, BF);
+    else
+      DW_PACK(float, float);
+#undef DW_PACK
+  }
+  if (pack_only) return cudaGetLastError();
+  const int kq = cbf16 ? DwTile<BF>::KQ : DwTile<float>::KQ;
+  int chunk = (Q + splits - 1) / splits;
+  chunk = (chunk + kq - 1) / kq * kq;
+  const dim3 grid(N / DW_T, (M + 1 + DW_F - 1) / DW_F, splits);
+  if (cbf16)
+    lstm_dw_partial_kernel<BF><<<grid, 256, 0, st>>>(static_cast<const BF*>(zp), a.dg, partial,
+                                                     Q, hidden, in, nw, zld, chunk);
+  else
+    lstm_dw_partial_kernel<float><<<grid, 256, 0, st>>>(static_cast<const float*>(zp), a.dg,
+                                                        partial, Q, hidden, in, nw, zld, chunk);
   const int total = (M + 1) * N;
   lstm_dw_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(partial, splits,
                                                           M * N, N, dw, db);
   return cudaGetLastError();
 }
+
 
 // ---------------------------------------------------------------------------
 // the scheduled-sampling decoder's recurrences (lstm_ss.cu's header says what
@@ -946,24 +1176,27 @@ static int ss_bwd_launch(const void* dys, const void* c0, const void* coins,
 // dW/db of every decoder layer (the reduction above; layer 0's input rebuilt
 // by the MODE loader from coins, teacher, ys, y0 and a static ctx (DW_SS) or
 // the per-step context from php and pwt (DW_ALIGN); the layers above read
-// their input from the residuals, the DW_TF loader). `partial` holds splits x
-// (max_l(in_l + H) + 1) x 4H floats, reused layer after layer.
+// their input from the residuals, the DW_TF loader). `zp` holds batch·t_len x
+// max_l dw_zld(in_l, H) values of the compute type and `partial` splits x
+// (max_l(in_l + H) + 1) x 4H floats, both reused layer after layer.
+// pack_layer >= 0: only that layer's pack pass, into zp.
 template <int MODE>
 static inline int ss_dw_layers(const void* h0, const void* y0, const void* teacher,
                         const void* coins, const void* ctx, const void* php,
                         const void* pwt, int n_peers, const void* ys,
                         const void* const* hs, const void* const* cs,
-                        const void* const* gs, const void* const* dg,
+                        const void* const* gs, const void* const* dg, void* zp,
                         void* partial, void* const* dw, void* const* db,
                         int batch, int t_len, int d, int ctx_dim, int hidden,
                         int layers, int splits, int bf16, int cbf16,
-                        void* stream) {
+                        int pack_layer, void* stream) {
   if (layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
       batch < 1 || t_len < 1 || d < 1 || ctx_dim < 0 || splits < 1 ||
-      (long long)batch * t_len >= (1LL << 31))
+      pack_layer >= layers || (long long)batch * t_len >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int l = 0; l < layers; ++l) {
+    if (pack_layer >= 0 && l != pack_layer) continue;
     DwArgs a = {};
     a.h0 = static_cast<const float*>(h0) + (size_t)l * batch * hidden;
     a.hs = hs[l];
@@ -984,9 +1217,10 @@ static inline int ss_dw_layers(const void* h0, const void* y0, const void* teach
     }
     const auto layer = l == 0 ? dw_layer<MODE> : dw_layer<DW_TF>;
     const cudaError_t e = layer(
-        a, static_cast<float*>(partial), static_cast<float*>(dw[l]),
-        static_cast<float*>(db[l]), batch, t_len, d, hidden,
-        l == 0 ? d + ctx_dim : hidden, splits, bf16 != 0, cbf16 != 0, st);
+        a, zp, static_cast<float*>(partial), pack_layer >= 0 ? nullptr : static_cast<float*>(dw[l]),
+        pack_layer >= 0 ? nullptr : static_cast<float*>(db[l]), batch, t_len, d, hidden,
+        l == 0 ? d + ctx_dim : hidden, l == 0 ? d : 0, splits, bf16 != 0, cbf16 != 0,
+        pack_layer >= 0, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;

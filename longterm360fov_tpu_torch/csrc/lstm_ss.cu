@@ -141,13 +141,13 @@ int ss_bwd(const void* dys, const void* c0, const void* coins, const void* w0,
 int ss_dw(const void* h0, const void* y0, const void* teacher,
           const void* coins, const void* ctx, const void* ys,
           const void* const* hs, const void* const* cs, const void* const* gs,
-          const void* const* dg, void* partial, void* const* dw,
+          const void* const* dg, void* zpack, void* partial, void* const* dw,
           void* const* db, int batch, int t_len, int d, int ctx_dim,
           int hidden, int layers, int splits, int bf16, int cbf16,
-          void* stream) {
+          int pack_layer, void* stream) {
   return ss_dw_layers<DW_SS>(h0, y0, teacher, coins, ctx, nullptr, nullptr, 0, ys,
-                      hs, cs, gs, dg, partial, dw, db, batch, t_len, d,
-                      ctx_dim, hidden, layers, splits, bf16, cbf16, stream);
+                      hs, cs, gs, dg, zpack, partial, dw, db, batch, t_len, d,
+                      ctx_dim, hidden, layers, splits, bf16, cbf16, pack_layer, stream);
 }
 
 // dproj_w (hidden, d) and dproj_b (d,) over the batch·t_len rows of hs_top

@@ -14,24 +14,25 @@
 //     the gradient of the layer below (dxs for layer 0). It ends with dh0,
 //     dc0. The top layer's dh is the upstream dhs_top plus the carried dh;
 //     the carries start from dhT, dcT.
-//   * lstm_dw_partial_kernel + lstm_dw_sum_kernel: dW_l = Σ_{b,t} zᵀ·dgates
-//     and db_l = Σ_{b,t} dgates with z = [input_t, h_{t-1}]: input_t is xs
-//     for layer 0 and o·tanh(c) of the layer below, rebuilt from its
-//     residuals, for l > 0; h_{t-1} is read from the residuals, and from h0
-//     at t = 0. The TPU kernel summed dW in a buffer that stayed in VMEM
-//     across its grid, which ran in order; blocks here run in parallel, so
-//     the (b, t) rows are split into S slices, each block writes the partial
-//     sums of one dW tile over one slice, and a second pass adds the S
-//     partials in a fixed order. No float atomics: two runs give the same
-//     bits.
+//   * lstm_dw_pack_kernel + lstm_dw_partial_kernel + lstm_dw_sum_kernel:
+//     dW_l = Σ_{b,t} zᵀ·dgates and db_l = Σ_{b,t} dgates with
+//     z = [input_t, h_{t-1}]: input_t is xs for layer 0 and o·tanh(c) of the
+//     layer below, rebuilt from its residuals, for l > 0; h_{t-1} is read
+//     from the residuals, and from h0 at t = 0. The pack pass writes z once
+//     in the compute type. The TPU kernel summed dW in a buffer that stayed
+//     in VMEM across its grid, which ran in order; blocks here run in
+//     parallel, so the (b, t) rows are split into S slices, each block
+//     writes the partial sums of one dW tile over one slice, and a second
+//     pass adds the S partials in a fixed order. No float atomics: two runs
+//     give the same bits.
 // The bf16 compute type (the TPU kernels' compute_dtype=bfloat16 tier)
 // rounds both operands of each product to bf16 and sums in f32: the gate
 // products [x, h]·W, dgates·Wᵀ, the dW sums zᵀ·dgates; db sums the unrounded
 // dgates, and carries, gates, residuals and dgates in device memory stay f32
 // or the residual type (lstm_common.cuh, cround). W is read as bf16 that the
-// wrapper rounded once per call, half the bytes from L2. The products still
-// run on the FMA units (the operands widened to f32), so the tier is no
-// faster than f32: it computes the TPU tier's function.
+// wrapper rounded once per call, half the bytes from L2. The recurrences'
+// products still run on the FMA units (the operands widened to f32), so
+// they are no faster than f32; the dW sums run on the tensor cores.
 // Every tensor is read and written batch-major, (B, T, ·), as the caller
 // holds it: a row's H values are contiguous, so a warp's per-step stores of
 // one row are one coalesced 512-byte (f32) or 256-byte (bf16) segment. No
@@ -42,12 +43,13 @@
 //   * Arithmetic. The forward is 2·B·T·(D+H)·4H = 16.5 GFLOP per pass, the
 //     backward recurrence 16.1 GFLOP (dgates·Wᵀ) and the dW reduction
 //     16.5 GFLOP, all exact f32 on the FMA units (67 TFLOP/s peak, so at
-//     least 0.25 ms each).
+//     least 0.25 ms each); the bf16 dW on the tensor cores (989 TFLOP/s
+//     dense) 0.017 ms.
 //   * Bytes. The residuals are 6H words per row-step: 377 MB per pass in f32,
 //     189 MB in bf16, plus dgates (4H f32, 252 MB) written by the backward
 //     recurrence and read by the reduction. At 3.35 TB/s that is 0.06-0.19 ms
-//     per kernel, under the FMA time: all three kernels are bound by FMA
-//     throughput, as fused_serve is, and not by bytes.
+//     per kernel, under the FMA time: the f32 kernels are bound by FMA
+//     throughput, as fused_serve is, and not by bytes; the bf16 dW by bytes.
 //   * W does not fit shared memory (131 x 512 x 4 = 268 KB > 227 KB); as in
 //     fused_serve.cu it is streamed from L2 with 16-byte loads every step.
 //   * Occupancy at the training batch. fused_serve's 64 rows per block give
@@ -55,7 +57,7 @@
 //     TR = 4 rows x TJ = 4 hidden units and a block 16 rows (the wrapper
 //     picks; 8 rows per thread spilled registers and ran slower): at
 //     B = 4096 that is 256 blocks of 128 threads, two resident per SM, one
-//     wave. The dW reduction tiles dW into 128 x 128 tiles and splits the
+//     wave. The dW reduction tiles dW into 144 x 128 tiles and splits the
 //     B·T rows so that the full tiles alone give two blocks per SM.
 // What the design does about it:
 //   * The recurrences keep every carry on chip: h of every layer k-major in
@@ -67,12 +69,19 @@
 //     coalesced 16-byte loads. A k-major column of the thread's 4 rows is one
 //     16-byte shared load (a broadcast: a warp shares its rows) and one
 //     16-byte store.
-//   * The dW reduction is a tiled f32 GEMM over the (b, t) rows: 16 rows of z
-//     and dgates per stage in shared memory, an 8 x 8 register tile per
-//     thread (64 FMAs per four 16-byte shared loads), the next stage's
-//     16-byte global loads in flight while the current one computes. z is
-//     assembled while it is loaded, h part first so that it is whole 16-byte
-//     runs, and is never written to device memory.
+//   * The dW reduction reads each operand from device memory once, or
+//     nearly. A pack pass builds z once, h part first so that its wide parts
+//     are whole 16-byte runs, and writes it in the compute type (in bf16 a
+//     quarter of dgates' bytes); the product then tiles dW into 144 features
+//     x 128 columns, so that the 132 features of an input of 3 are one tile
+//     (and 257-260 two), and no block reads dgates for a handful of
+//     features. A block stages its slice's rows in two shared-memory
+//     buffers, the next stage's loads in flight while the current one
+//     computes: in bf16 (mma.sync m16n8k16, f32 accumulators) 32 rows, z by
+//     cp.async and dgates through registers, rounded as they are stored and
+//     summed unrounded for db; in f32 16 rows by cp.async and a 9 x 8 FMA
+//     tile per thread. A pack is a bytes-bound pass; the products keep 128
+//     registers, two blocks per SM.
 // The device code these kernels share with lstm_ss.cu is in lstm_common.cuh.
 
 #include "lstm_common.cuh"
@@ -341,20 +350,24 @@ int lstm_bwd(const void* dhs_top, const void* dhT, const void* dcT,
             bf16, static_cast<cudaStream_t>(stream));
 }
 
-// Per layer: the partial sums over `splits` slices of the B·T rows, then
-// their sum. `partial` holds splits x (max_l(in_l + H) + 1) x 4H floats and
-// is reused layer after layer (the launches are ordered on the stream).
+// Per layer: the pack pass into zpack (batch·t_len x max_l dw_zld(in_l, H)
+// values of the compute type), the partial sums over `splits` slices of the
+// B·T rows, then their sum. `partial` holds splits x (max_l(in_l + H) + 1) x
+// 4H floats; both are reused layer after layer (the launches are ordered on
+// the stream). pack_layer >= 0: only that layer's pack pass, into zpack.
 int lstm_dw(const void* xs, const void* h0, const void* const* hs,
             const void* const* cs, const void* const* gs,
-            const void* const* dg, void* partial, void* const* dw,
+            const void* const* dg, void* zpack, void* partial, void* const* dw,
             void* const* db, int batch, int t_len, int d, int hidden,
-            int layers, int splits, int bf16, int cbf16, void* stream) {
+            int layers, int splits, int bf16, int cbf16, int pack_layer,
+            void* stream) {
   if (layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
-      batch < 1 || t_len < 1 || d < 1 || splits < 1 ||
+      batch < 1 || t_len < 1 || d < 1 || splits < 1 || pack_layer >= layers ||
       (long long)batch * t_len >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int l = 0; l < layers; ++l) {
+    if (pack_layer >= 0 && l != pack_layer) continue;
     DwArgs a = {};
     a.xs = static_cast<const float*>(xs);
     a.h0 = static_cast<const float*>(h0) + (size_t)l * batch * hidden;
@@ -362,10 +375,11 @@ int lstm_dw(const void* xs, const void* h0, const void* const* hs,
     a.cs_in = l > 0 ? cs[l - 1] : nullptr;
     a.gs_in = l > 0 ? gs[l - 1] : nullptr;
     a.dg = static_cast<const float*>(dg[l]);
+    const bool pack_only = pack_layer >= 0;
     const cudaError_t e = dw_layer<DW_TF>(
-        a, static_cast<float*>(partial), static_cast<float*>(dw[l]),
-        static_cast<float*>(db[l]), batch, t_len, d, hidden,
-        l == 0 ? d : hidden, splits, bf16 != 0, cbf16 != 0, st);
+        a, zpack, static_cast<float*>(partial), pack_only ? nullptr : static_cast<float*>(dw[l]),
+        pack_only ? nullptr : static_cast<float*>(db[l]), batch, t_len, d, hidden,
+        l == 0 ? d : hidden, l == 0 ? d : 0, splits, bf16 != 0, cbf16 != 0, pack_only, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,13 +56,17 @@ from .lstm_train import (
     RESIDUAL_DTYPES,
     Residuals,
     _check_card,
+    _check_pack_layer,
     _dw_reference as _lstm_dw_reference,
+    _pack_reference,
     _n_sm,
     _no_tf32,
     _ptrs,
     check_compute,
     count_launch,
+    dw_pack,
     dw_splits,
+    dw_zld,
     in_compute,
     kernel_rows as _lstm_kernel_rows,
     widen,
@@ -381,10 +385,11 @@ peer_bwd.launches = peer_bwd.launches_bf16 = 0
 
 def dec_dw(params: Sequence[LSTMParams], h0, y0, teacher_tm, coins, pwt, php, ys,
            res: Residuals, dgates: Sequence[torch.Tensor],
-           compute_dtype=torch.float32) -> List[LSTMParams]:
+           compute_dtype=torch.float32, pack_layer: Optional[int] = None) -> List[LSTMParams]:
     """The decoder's dW/db reduction, layer 0's context rebuilt from the
     residual peer h ``php`` (B·K, T, C) and ``pwt`` → per layer
-    ``LSTMParams(dW, db)``, f32."""
+    ``LSTMParams(dW, db)``, f32; with ``pack_layer``, only that layer's
+    pack pass (``lstm_train.dw_pack``)."""
     t_len, batch, d = teacher_tm.shape
     hidden, layers = h0.shape[-1], len(params)
     k, c_dim = pwt.shape[-1], php.shape[-1]
@@ -399,27 +404,37 @@ def dec_dw(params: Sequence[LSTMParams], h0, y0, teacher_tm, coins, pwt, php, ys
     if tuple(php.shape) != (batch * k, t_len, c_dim) or php.dtype != rdt or php.device != dev:
         raise ValueError(f"php {php.dtype} {tuple(php.shape)} does not match the call")
     check_compute(compute_dtype)
+    _check_pack_layer(pack_layer, layers)
     if dev.type == "cpu":
+        if pack_layer is not None:
+            x0 = lstm_ss._layer0_input(y0, teacher_tm, coins, _rebuilt_ctx(php, pwt), ys)
+            return _pack_reference(x0, h0, res, pack_layer, d if pack_layer == 0 else 0, compute_dtype)
         return _dw_reference(params, h0, y0, teacher_tm, coins, pwt, php, ys, res, dgates,
                              compute_dtype)
     if batch * t_len >= 2**31:
         raise ValueError(f"B·T = {batch * t_len} rows do not fit the kernel's 32-bit row index")
     splits = dw_splits(batch, t_len, hidden, d + c_dim, _n_sm(dev))
+    ins = [d + c_dim] + [hidden] * (layers - 1)
+    ins = ins if pack_layer is None else [ins[pack_layer]]
+    zpack = torch.empty((batch * t_len, max(dw_zld(i, hidden) for i in ins)), dtype=compute_dtype, device=dev)
     rows_max = max(d + c_dim + hidden, 2 * hidden if layers > 1 else 0)  # in_l + H
     partial = torch.empty((splits, rows_max + 1, 4 * hidden), device=dev)
     dws = [torch.empty_like(p.w) for p in params]
     dbs = [torch.empty_like(p.b) for p in params]
     _check_card([h0, y0, teacher_tm, coins, pwt, php, ys, *res.hs, *res.cs, *res.gs, *dgates,
-                 partial, *dws, *dbs])
+                 zpack, partial, *dws, *dbs])
     with torch.cuda.device(dev):
         err = _library().align_dec_dw(
             h0.data_ptr(), y0.data_ptr(), teacher_tm.data_ptr(), coins.data_ptr(), php.data_ptr(),
             pwt.data_ptr(), ys.data_ptr(), _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs),
-            _ptrs(dgates), partial.data_ptr(), _ptrs(dws), _ptrs(dbs), batch, t_len, d, c_dim,
-            k, hidden, layers, splits, int(rdt == torch.bfloat16),
-            int(compute_dtype == torch.bfloat16), _stream(),
+            _ptrs(dgates), zpack.data_ptr(), partial.data_ptr(), _ptrs(dws), _ptrs(dbs), batch,
+            t_len, d, c_dim, k, hidden, layers, splits, int(rdt == torch.bfloat16),
+            int(compute_dtype == torch.bfloat16), -1 if pack_layer is None else pack_layer, _stream(),
         )
     _raise_on(err, "dec_dw")
+    count_launch(dw_pack, compute_dtype)
+    if pack_layer is not None:
+        return zpack
     count_launch(dec_dw, compute_dtype)
     return [LSTMParams(w=w, b=b) for w, b in zip(dws, dbs)]
 
@@ -427,29 +442,41 @@ def dec_dw(params: Sequence[LSTMParams], h0, y0, teacher_tm, coins, pwt, php, ys
 dec_dw.launches = dec_dw.launches_bf16 = 0
 
 
-def peer_dw(peer_params: LSTMParams, pxs, php, dpgates, compute_dtype=torch.float32) -> LSTMParams:
+def peer_dw(peer_params: LSTMParams, pxs, php, dpgates, compute_dtype=torch.float32,
+            pack_layer: Optional[int] = None) -> LSTMParams:
     """The peer encoder's dW/db reduction over the B·K·T rows, z =
-    [pxs_t, h_{t-1}] → ``LSTMParams(dWp, dbp)``, f32."""
+    [pxs_t, h_{t-1}] → ``LSTMParams(dWp, dbp)``, f32; with ``pack_layer``
+    (0: the peer cell is one layer), only the pack pass
+    (``lstm_train.dw_pack``)."""
     rows, t_len, d = pxs.shape
     c_dim = peer_params.w.shape[1] // 4
     _check_peer(peer_params, pxs, (php, (rows, t_len, c_dim), RESIDUAL_DTYPES),
                 (dpgates, (rows, t_len, 4 * c_dim), (torch.float32,)))
     check_compute(compute_dtype)
+    _check_pack_layer(pack_layer, 1)
     if pxs.device.type == "cpu":
+        if pack_layer is not None:
+            zero = pxs.new_zeros((1, rows, c_dim))
+            return _pack_reference(pxs, zero, Residuals([php], [], []), 0, d, compute_dtype)
         return _peer_dw_reference(peer_params, pxs, php, dpgates, compute_dtype)
     dev = pxs.device
     splits = dw_splits(rows, t_len, c_dim, d, _n_sm(dev))
     zero = torch.zeros((rows, c_dim), device=dev)
+    zpack = torch.empty((rows * t_len, dw_zld(d, c_dim)), dtype=compute_dtype, device=dev)
     partial = torch.empty((splits, d + c_dim + 1, 4 * c_dim), device=dev)
     dw, db = torch.empty_like(peer_params.w), torch.empty_like(peer_params.b)
-    _check_card([pxs, zero, php, dpgates, partial, dw, db])
+    _check_card([pxs, zero, php, dpgates, zpack, partial, dw, db])
     with torch.cuda.device(dev):
         err = _library().align_peer_dw(
-            pxs.data_ptr(), zero.data_ptr(), php.data_ptr(), dpgates.data_ptr(), partial.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), rows, t_len, d, c_dim, splits,
-            int(php.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), _stream(),
+            pxs.data_ptr(), zero.data_ptr(), php.data_ptr(), dpgates.data_ptr(), zpack.data_ptr(),
+            partial.data_ptr(), dw.data_ptr(), db.data_ptr(), rows, t_len, d, c_dim, splits,
+            int(php.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
+            int(pack_layer is not None), _stream(),
         )
     _raise_on(err, "peer_dw")
+    count_launch(dw_pack, compute_dtype)
+    if pack_layer is not None:
+        return zpack
     count_launch(peer_dw, compute_dtype)
     return LSTMParams(w=dw, b=db)
 
@@ -467,8 +494,8 @@ def _library() -> ctypes.CDLL:
     lib.align_dec_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 9 + [vp]
     lib.align_dec_bwd.argtypes = [vp, vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 9 + [vp]
     lib.align_peer_bwd.argtypes = [vp] * 11 + [i32] * 8 + [vp]
-    lib.align_dec_dw.argtypes = [vp] * 7 + [arr] * 4 + [vp, arr, arr] + [i32] * 10 + [vp]
-    lib.align_peer_dw.argtypes = [vp] * 7 + [i32] * 7 + [vp]
+    lib.align_dec_dw.argtypes = [vp] * 7 + [arr] * 4 + [vp, vp, arr, arr] + [i32] * 11 + [vp]
+    lib.align_peer_dw.argtypes = [vp] * 8 + [i32] * 8 + [vp]
     for f in (lib.align_peer_fwd, lib.align_dec_fwd, lib.align_dec_bwd, lib.align_peer_bwd,
               lib.align_dec_dw, lib.align_peer_dw):
         f.restype = i32

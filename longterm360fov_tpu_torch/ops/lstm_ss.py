@@ -57,13 +57,17 @@ from .lstm_train import (
     RESIDUAL_DTYPES,
     Residuals,
     _check_card,
+    _check_pack_layer,
     _dw_reference as _lstm_dw_reference,
+    _pack_reference,
     _n_sm,
     _no_tf32,
     _ptrs,
     check_compute,
     count_launch,
+    dw_pack,
     dw_splits,
+    dw_zld,
     in_compute,
     kernel_rows as _lstm_kernel_rows,
     widen,
@@ -476,8 +480,10 @@ ss_bwd.launches = ss_bwd.launches_bf16 = 0
 def ss_dw(
     params: Sequence[LSTMParams], h0, y0, teacher_tm, coins, context, ys,
     res: Residuals, dgates: Sequence[torch.Tensor], compute_dtype: torch.dtype = torch.float32,
+    pack_layer: Optional[int] = None,
 ) -> List[LSTMParams]:
-    """dW/db reduction → per layer ``LSTMParams(dW, db)``, f32."""
+    """dW/db reduction → per layer ``LSTMParams(dW, db)``, f32; with
+    ``pack_layer``, only that layer's pack pass (``lstm_train.dw_pack``)."""
     t_len, batch, d = teacher_tm.shape
     hidden, layers = h0.shape[-1], len(params)
     ctx_dim = 0 if context is None else context.shape[-1]
@@ -492,29 +498,40 @@ def ss_dw(
         raise ValueError(f"{len(dgates)} dgates for {layers} layers")
     rdt = _check_res(res, layers, batch, t_len, hidden, dev)
     check_compute(compute_dtype)
+    _check_pack_layer(pack_layer, layers)
     if dev.type == "cpu":
+        if pack_layer is not None:
+            return _pack_reference(_layer0_input(y0, teacher_tm, coins, context, ys), h0, res, pack_layer,
+                                   d if pack_layer == 0 else 0, compute_dtype)
         return _dw_reference(params, h0, y0, teacher_tm, coins, context, ys, res, dgates,
                              compute_dtype)
     if batch * t_len >= 2**31:
         raise ValueError(f"B·T = {batch * t_len} rows do not fit the kernel's 32-bit row index")
     splits = dw_splits(batch, t_len, hidden, d + ctx_dim, _n_sm(dev))
+    ins = [d + ctx_dim] + [hidden] * (layers - 1)
+    ins = ins if pack_layer is None else [ins[pack_layer]]
+    zpack = torch.empty((batch * t_len, max(dw_zld(i, hidden) for i in ins)), dtype=compute_dtype, device=dev)
     rows_max = max(d + ctx_dim + hidden, 2 * hidden if layers > 1 else 0)  # in_l + H
     partial = torch.empty((splits, rows_max + 1, 4 * hidden), device=dev)
     dws = [torch.empty_like(p.w) for p in params]
     dbs = [torch.empty_like(p.b) for p in params]
     ctx_t = [] if context is None else [context]
     _check_card([h0, y0, teacher_tm, coins, ys, *ctx_t, *res.hs, *res.cs, *res.gs, *dgates,
-                 partial, *dws, *dbs])
+                 zpack, partial, *dws, *dbs])
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.ss_dw(
             h0.data_ptr(), y0.data_ptr(), teacher_tm.data_ptr(), coins.data_ptr(),
             None if context is None else context.data_ptr(), ys.data_ptr(),
-            _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs), _ptrs(dgates), partial.data_ptr(),
-            _ptrs(dws), _ptrs(dbs), batch, t_len, d, ctx_dim, hidden, layers, splits,
-            int(rdt == torch.bfloat16), int(compute_dtype == torch.bfloat16), _stream(),
+            _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs), _ptrs(dgates), zpack.data_ptr(),
+            partial.data_ptr(), _ptrs(dws), _ptrs(dbs), batch, t_len, d, ctx_dim, hidden, layers,
+            splits, int(rdt == torch.bfloat16), int(compute_dtype == torch.bfloat16),
+            -1 if pack_layer is None else pack_layer, _stream(),
         )
     _raise_on(err, "ss_dw")
+    count_launch(dw_pack, compute_dtype)
+    if pack_layer is not None:
+        return zpack
     count_launch(ss_dw, compute_dtype)
     return [LSTMParams(w=w, b=b) for w, b in zip(dws, dbs)]
 
@@ -567,7 +584,7 @@ def _library() -> ctypes.CDLL:
     arr = ctypes.POINTER(ctypes.c_void_p)
     lib.ss_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 9 + [vp]
     lib.ss_bwd.argtypes = [vp, vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 9 + [vp]
-    lib.ss_dw.argtypes = [vp] * 6 + [arr] * 4 + [vp, arr, arr] + [i32] * 9 + [vp]
+    lib.ss_dw.argtypes = [vp] * 6 + [arr] * 4 + [vp, vp, arr, arr] + [i32] * 10 + [vp]
     lib.ss_dproj.argtypes = [vp] * 5 + [i32] * 7 + [vp]
     for f in (lib.ss_fwd, lib.ss_bwd, lib.ss_dw, lib.ss_dproj):
         f.restype = i32

@@ -20,9 +20,11 @@ Three kernels of ``csrc/lstm_train.cu`` carry it on the card:
   ``dh`` and ``dc`` per layer and writes ``dgates``, ``dxs``, ``dh0`` and
   ``dc0``;
 * :func:`lstm_dw`, the reduction ``dW_l = Σ_{b,t} z_{b,t}ᵀ dgates_{b,t}``
-  and ``db_l = Σ dgates`` with ``z = [input_t, h_{t-1}]``, split over the
-  (b, t) rows into partial sums that a second pass adds in a fixed order:
-  no float atomics, so two runs give the same bits.
+  and ``db_l = Σ dgates`` with ``z = [input_t, h_{t-1}]``: a pack pass
+  writes each layer's z once in the compute type (:func:`dw_pack` runs it
+  alone), a product on tensor cores (bf16) or exact FMAs (f32) sums it
+  against dgates over slices of the (b, t) rows, and a second pass adds the
+  slices in a fixed order: no float atomics, so two runs give the same bits.
 
 Each wrapper runs its plain version (``_forward_reference``,
 ``_bwd_recurrence_reference``, ``_dw_reference``) on CPU tensors, and
@@ -41,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,6 +60,8 @@ __all__ = [
     "lstm_dw",
     "kernel_rows",
     "dw_splits",
+    "dw_zld",
+    "dw_pack",
     "widen",
 ]
 
@@ -65,7 +69,15 @@ MAX_LAYERS = 8  # csrc/lstm_train.cu MAX_LAYERS
 _SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use (227 KB)
 _MAX_THREADS = 256  # the recurrence kernels' __launch_bounds__
 _TR, _TJ = 4, 4  # rows and hidden units per thread
-_DW_TILE = 128  # csrc/lstm_train.cu DW_T: rows and columns of a dW tile
+_DW_TILE = 128  # csrc/lstm_common.cuh DW_T: gate columns of a dW tile
+_DW_FEATURES = 144  # DW_F: z features of a dW tile (nine 16-row mma tiles)
+_DW_VEC = 8  # DW_V: the packed z's rows are whole runs of 8 values
+# rows a dW slice sums at most: the tensor cores add each 16-row product
+# into their f32 accumulator rounding toward zero, an error that grows with
+# the run (read 4.3e-5 of max|dW| at 2.9 million peer rows in 66 slices on
+# an H100; the bf16 tier's gate is 1e-4); shorter runs are added by the sum
+# pass, rounding to nearest
+_DW_RUN = 8192
 RESIDUAL_DTYPES = (torch.float32, torch.bfloat16)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -215,6 +227,22 @@ def _dw_reference(
     return out
 
 
+def _pack_reference(xs: torch.Tensor, h0: torch.Tensor, res: Residuals, layer: int,
+                    narrow: int, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of the pack kernel: layer ``layer``'s z at every row
+    b·T + t in the order the reduction packs it, ``[h_{t-1}, input[narrow:],
+    input[:narrow], 1]`` padded with zeros to :func:`dw_zld` values, in
+    ``compute_dtype`` → (B·T, dw_zld). ``xs`` is layer 0's input (its first
+    ``narrow`` features are x_t; 0 above layer 0)."""
+    hidden = h0.shape[-1]
+    z = _layer_inputs(xs, h0, res, layer)
+    n_in = z.shape[-1] - hidden
+    inp, h_prev = z[..., :n_in], z[..., n_in:]
+    packed = torch.cat([h_prev, inp[..., narrow:], inp[..., :narrow], torch.ones_like(inp[..., :1])], dim=-1)
+    packed = torch.nn.functional.pad(packed, (0, dw_zld(n_in, hidden) - packed.shape[-1]))
+    return packed.reshape(-1, packed.shape[-1]).to(compute_dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -250,11 +278,19 @@ def kernel_rows(hidden: int, layers: int, d: int) -> int:
 
 def dw_splits(batch: int, t_len: int, hidden: int, d: int, n_sm: int) -> int:
     """How many slices of the (b, t) rows the dW reduction is split into:
-    enough that the full 128 x 128 dW tiles of the first layer alone give
-    two blocks per SM, with at least 64 rows per slice."""
-    tiles = (4 * hidden // _DW_TILE) * max(1, (d + hidden) // _DW_TILE)
+    enough that the 144-feature x 128-column dW tiles of the first layer
+    alone give two blocks per SM, in whole waves of them so that no slice
+    sums more than ``_DW_RUN`` rows, with at least 64 rows per slice."""
+    tiles = (4 * hidden // _DW_TILE) * -(-(d + hidden + 1) // _DW_FEATURES)
     want = -(-2 * n_sm // tiles)
+    want *= -(-batch * t_len // (want * _DW_RUN))
     return max(1, min(want, batch * t_len // 64))
+
+
+def dw_zld(n_in: int, hidden: int) -> int:
+    """Row length of a layer's packed z (``n_in + hidden + 1`` features
+    rounded up to whole runs of 8)."""
+    return -(-(n_in + hidden + 1) // _DW_VEC) * _DW_VEC
 
 
 def check_compute(compute_dtype: torch.dtype):
@@ -457,9 +493,10 @@ lstm_bwd.launches = lstm_bwd.launches_bf16 = 0
 def lstm_dw(
     params: Sequence[LSTMParams], xs: torch.Tensor, h0: torch.Tensor,
     res: Residuals, dgates: Sequence[torch.Tensor],
-    compute_dtype: torch.dtype = torch.float32,
+    compute_dtype: torch.dtype = torch.float32, pack_layer: Optional[int] = None,
 ) -> List[LSTMParams]:
-    """dW/db reduction → per layer ``LSTMParams(dW, db)``, f32."""
+    """dW/db reduction → per layer ``LSTMParams(dW, db)``, f32; with
+    ``pack_layer``, only that layer's pack pass (:func:`dw_pack`)."""
     batch, t_len, d = xs.shape
     hidden, layers = h0.shape[-1], len(params)
     _check_bwd(params, res, batch, t_len, d, hidden, [
@@ -469,31 +506,60 @@ def lstm_dw(
     if len(dgates) != layers:
         raise ValueError(f"{len(dgates)} dgates for {layers} layers")
     check_compute(compute_dtype)
+    _check_pack_layer(pack_layer, layers)
     if xs.device.type == "cpu":
+        if pack_layer is not None:
+            return _pack_reference(xs, h0, res, pack_layer, d if pack_layer == 0 else 0, compute_dtype)
         return _dw_reference(params, xs, h0, res, dgates, compute_dtype)
     if batch * t_len >= 2**31:
         raise ValueError(f"B·T = {batch * t_len} rows do not fit the kernel's 32-bit row index")
     dev = xs.device
     splits = dw_splits(batch, t_len, hidden, d, _n_sm(dev))
+    ins = [d] + [hidden] * (layers - 1) if pack_layer is None else [d if pack_layer == 0 else hidden]
+    zpack = torch.empty((batch * t_len, max(dw_zld(i, hidden) for i in ins)), dtype=compute_dtype, device=dev)
     rows_max = max(d + hidden, 2 * hidden if layers > 1 else 0)  # in_l + H
     partial = torch.empty((splits, rows_max + 1, 4 * hidden), device=dev)
     dws = [torch.empty_like(p.w) for p in params]
     dbs = [torch.empty_like(p.b) for p in params]
-    _check_card([xs, h0, *res.hs, *res.cs, *res.gs, *dgates, partial, *dws, *dbs])
+    _check_card([xs, h0, *res.hs, *res.cs, *res.gs, *dgates, zpack, partial, *dws, *dbs])
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.lstm_dw(
             xs.data_ptr(), h0.data_ptr(), _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs),
-            _ptrs(dgates), partial.data_ptr(), _ptrs(dws), _ptrs(dbs),
+            _ptrs(dgates), zpack.data_ptr(), partial.data_ptr(), _ptrs(dws), _ptrs(dbs),
             batch, t_len, d, hidden, layers, splits, int(res.hs[0].dtype == torch.bfloat16),
-            int(compute_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+            int(compute_dtype == torch.bfloat16), -1 if pack_layer is None else pack_layer,
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "lstm_dw")
+    count_launch(dw_pack, compute_dtype)
+    if pack_layer is not None:
+        return zpack
     count_launch(lstm_dw, compute_dtype)
     return [LSTMParams(w=w, b=b) for w, b in zip(dws, dbs)]
 
 
 lstm_dw.launches = lstm_dw.launches_bf16 = 0
+
+
+def _check_pack_layer(pack_layer: Optional[int], layers: int):
+    if pack_layer is not None and not 0 <= pack_layer < layers:
+        raise ValueError(f"pack_layer {pack_layer} is not one of the {layers} layers")
+
+
+def dw_pack(dw, *args, layer: int = 0, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The dW reductions' pack kernel alone (``lstm_dw_pack_kernel`` of
+    ``csrc/lstm_common.cuh``): layer ``layer``'s z as the reduction ``dw``
+    (:func:`lstm_dw`, ``lstm_ss.ss_dw``, ``lstm_align.dec_dw`` or
+    ``lstm_align.peer_dw``) packs it from ``args``, its arguments up to the
+    compute type → (B·T, :func:`dw_zld`) in ``compute_dtype``, the layout of
+    :func:`_pack_reference` (the plain version, which CPU tensors get).
+    ``dw_pack.launches`` (and ``launches_bf16``) count every call of the
+    pack kernel, from this function and from the reductions."""
+    return dw(*args, compute_dtype=compute_dtype, pack_layer=layer)
+
+
+dw_pack.launches = dw_pack.launches_bf16 = 0
 
 
 @functools.cache
@@ -504,7 +570,7 @@ def _library() -> ctypes.CDLL:
     arr = ctypes.POINTER(ctypes.c_void_p)
     lib.lstm_fwd.argtypes = [vp, vp, vp, arr, arr, arr, arr, arr] + [i32] * 8 + [vp]
     lib.lstm_bwd.argtypes = [vp, vp, vp, vp, arr, arr, arr, arr, arr, vp, vp, vp] + [i32] * 8 + [vp]
-    lib.lstm_dw.argtypes = [vp, vp, arr, arr, arr, arr, vp, arr, arr] + [i32] * 8 + [vp]
+    lib.lstm_dw.argtypes = [vp, vp, arr, arr, arr, arr, vp, vp, arr, arr] + [i32] * 9 + [vp]
     for f in (lib.lstm_fwd, lib.lstm_bwd, lib.lstm_dw):
         f.restype = i32
     lib.lstm_train_error_string.argtypes = [i32]

@@ -16,7 +16,7 @@ def test_presets_lists_what_jax_lists(capsys):
     assert capsys.readouterr().out == ref
 
 
-@pytest.mark.parametrize("impl", ["fused", "plain"])
+@pytest.mark.parametrize("impl", ["fused", "xla"])
 def test_serve_bench_on_cpu_is_labelled_cpu(impl, capsys):
     cli.main(["serve-bench", "--batch", "8", "--iters", "1", "--impl", impl,
               "--device", "cpu"])
@@ -57,7 +57,7 @@ def test_transformer_30_train_eval_serve_bench_on_cpu(tmp_path, capsys):
     assert "resumed from step 2" in out and _last_json(out)["step"] == 3
     cli.main(["eval", *run, "--json"])
     assert len(_last_json(capsys.readouterr().out)["error_by_step_deg"]) == 30
-    for impl in ("fused", "plain"):
+    for impl in ("fused", "xla"):
         cli.main(["serve-bench", "--preset", "transformer-30", "--batch", "8", "--iters", "1", "--impl", impl,
                   "--device", "cpu"])
         res = _last_json(capsys.readouterr().out)

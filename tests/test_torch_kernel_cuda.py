@@ -224,7 +224,8 @@ def test_lstm_train_rows_are_independent():
 
 
 def test_lstm_dw_reduction_is_deterministic():
-    """No float atomics: the backward gives the same bits twice."""
+    """No float atomics: the backward gives the same bits twice, and so does
+    every loader's reduction in both compute types."""
     ps, (xs, h0, c0), up = _lstm_case(4099, 2, seed=1)
     leaves = [t.clone().requires_grad_(True) for p in ps for t in p]
     grads = []
@@ -235,6 +236,90 @@ def test_lstm_dw_reduction_is_deterministic():
         grads.append(torch.autograd.grad(s, leaves))
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+    for loader in DW_LOADERS:
+        dw, args, *_ = _dw_inputs(loader, 257, torch.bfloat16)
+        for cd in COMPUTE:
+            first, again = (_dw_flat(dw(*args, cd)) for _ in range(2))
+            assert all(torch.equal(a, b) for a, b in zip(first, again, strict=True)), (loader, cd)
+
+
+# Every loader of the dW reductions: the teacher-forced LSTM (two layers:
+# in = 3, then the layer below's o·tanh(c)), the scheduled-sampling decoder
+# at C = 0, 128 and 64 (in = 3, 131, 67), the lockstep decoder and its peer
+# encoder at the 10 s shapes (T = 100, K = 1 and 7).
+DW_LOADERS = ["tf", "ss0", "ss128", "ss64", "align1", "align7", "peer7"]
+
+
+def _dw_inputs(loader, batch, rd, seed=0):
+    """A reduction's wrapper and arguments (the dgates from the kernels'
+    backward), its layers, and what its pack pass reads: layer 0's input
+    (its first 3 features x_t), h0 and the residuals."""
+    if loader == "tf":
+        ps, (xs, h0, c0), up = _lstm_case(batch, 2, seed)
+        res = lstm_train.lstm_fwd(ps, xs, h0, c0, rd)
+        return lstm_train.lstm_dw, (ps, xs, h0, res, lstm_train.lstm_bwd(ps, c0, res, *up)[0]), 2, xs, h0, res
+    if loader.startswith("ss"):
+        ctx_dim = int(loader[2:])
+        ps, a = _ss_case(batch, 2, ctx_dim, "bernoulli", seed)
+        ys, res = lstm_ss.ss_fwd(*_ss_fwd_args(ps, a), rd)
+        dg = lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], ctx_dim)[0]
+        x0 = lstm_ss._layer0_input(a["y0"], a["teacher"], a["coins"], a["ctx"], ys)
+        return lstm_ss.ss_dw, (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["ctx"], ys, res, dg), 2, x0, \
+            a["h0"], res
+    ps, a = _aligned_case(batch, 2, int(loader[-1]), "bernoulli", seed, t=100)
+    php, pcp, ctx = lstm_align.peer_fwd(a["peer"], a["pxs"], a["pwt"], rd)
+    ys, res = lstm_align.dec_fwd(ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"],
+                                 ctx, rd)
+    bw = lstm_align.dec_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
+    if loader.startswith("peer"):
+        dpg = lstm_align.peer_bwd(a["peer"], a["pxs"], a["pwt"], php, pcp, bw[6])[0]
+        no_h = torch.zeros((1, php.shape[0], 128), device="cuda")  # the peers start from zero state
+        return lstm_align.peer_dw, (a["peer"], a["pxs"], php, dpg), 1, a["pxs"], no_h, \
+            lstm_train.Residuals([php], [], [])
+    x0 = lstm_ss._layer0_input(a["y0"], a["teacher"], a["coins"], lstm_align._rebuilt_ctx(php, a["pwt"]), ys)
+    return lstm_align.dec_dw, (ps, a["h0"], a["y0"], a["teacher"], a["coins"], a["pwt"], php, ys, res, bw[0]), 2, \
+        x0, a["h0"], res
+
+
+def _dw_flat(out):
+    return _wb(out) if isinstance(out, list) else [out.w, out.b]
+
+
+@pytest.mark.parametrize("cd", COMPUTE)
+@pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("loader", DW_LOADERS)
+def test_dw_pack_kernel_matches_plain(loader, rd, cd):
+    """The reductions' pack pass alone (lstm_train.dw_pack) at every layer
+    against its plain version: z in the packed order and the compute type,
+    held as a forward output (1e-5, in bf16 one bf16 step more: the
+    lockstep context is summed with FMAs, the plain version rounds each
+    product, so a value may round the other way)."""
+    dw, args, layers, x0, h0, res = _dw_inputs(loader, 67, rd)
+    before = _counts([lstm_train.dw_pack])
+    for l in range(layers):
+        zp = lstm_train.dw_pack(dw, *args, layer=l, compute_dtype=cd)
+        n_in = x0.shape[-1] if l == 0 else 128
+        assert zp.dtype == cd and zp.shape == (x0.shape[0] * x0.shape[1], lstm_train.dw_zld(n_in, 128))
+        _check([zp], _plains(cd, lambda c: [lstm_train._pack_reference(x0, h0, res, l, 3 if l == 0 else 0, c)]),
+               "fwd", cd)
+    n, m = before[0]
+    assert _counts([lstm_train.dw_pack]) == [(n + layers * (cd != BF), m + layers * (cd == BF))]
+
+
+def test_bf16_db_sums_the_unrounded_dgates():
+    """The bf16 tier's db is Σ dgates, not Σ round(dgates): dgates of
+    1 + 2^-9, which bf16 rounds to 1, set the two 2^-9 of the sum apart,
+    20 times the reductions' limit; dW rounds, held as every bf16 dW."""
+    ps, (xs, h0, c0), _ = _lstm_case(4099, 1, seed=4)
+    res = lstm_train.lstm_fwd(ps, xs, h0, c0, BF)
+    dg = [torch.full((4099, 30, 512), 1.0 + 2.0 ** -9, device="cuda")]
+    exact = dg[0].reshape(-1, 512).double().sum(dim=0)
+    rounded = dg[0].bfloat16().reshape(-1, 512).double().sum(dim=0)
+    assert (rounded - exact).abs().max().item() > 1e-4 * exact.abs().max().item()
+    dps = lstm_train.lstm_dw(ps, xs, h0, res, dg, BF)
+    assert _rel(dps[0].b.double(), exact) <= 1e-6
+    _check(_wb(dps), _plains(BF, lambda c: _wb(lstm_train._dw_reference(ps, xs, h0, res, dg, c))), "sum", BF,
+           unrounded=1)
 
 
 def test_lstm_seq_states_autograd_matches_the_step_loop():
@@ -619,11 +704,11 @@ def _aligned_case(batch, layers, k, coins, seed, t=30, masked=True):
     return ps, a
 
 
-def _aligned_check(batch, layers, k, rd, coins, seed=0, cd=torch.float32):
+def _aligned_check(batch, layers, k, rd, coins, seed=0, cd=torch.float32, t=30):
     """The six aligned_ss_decode kernels in the compute type ``cd`` against
     their plain versions, each fed the plain version's inputs from the
     kernel before it, as in chip_smoke.py."""
-    ps, a = _aligned_case(batch, layers, k, coins, seed)
+    ps, a = _aligned_case(batch, layers, k, coins, seed, t)
     wrappers = (lstm_align.peer_fwd, lstm_align.dec_fwd, lstm_align.dec_bwd, lstm_align.peer_bwd,
                 lstm_align.dec_dw, lstm_align.peer_dw)
     before = _counts(wrappers)
@@ -656,6 +741,15 @@ def _aligned_check(batch, layers, k, rd, coins, seed=0, cd=torch.float32):
 @pytest.mark.parametrize("batch", [1, 257, 4099])
 def test_aligned_kernels_match_plain(batch, layers, k, rd, cd):
     _aligned_check(batch, layers, k, rd, "bernoulli", seed=layers, cd=cd)
+
+
+@pytest.mark.parametrize("cd", COMPUTE)
+@pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 7])
+def test_aligned_kernels_match_plain_at_10s_shapes(k, rd, cd):
+    """stacked-ss-crossuser-10s's shapes (T = 100, C = 128, two layers) at
+    K = 1 and 7 and a ragged batch."""
+    _aligned_check(67, 2, k, rd, "bernoulli", seed=k, cd=cd, t=100)
 
 
 @pytest.mark.parametrize("cd", COMPUTE)
