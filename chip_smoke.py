@@ -6,7 +6,11 @@ one line each or more:
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
 2. the build of every kernel source in ``csrc/`` (one nvcc each, started
-   together), with its time, registers and spills;
+   together, and a probe build of ``transformer_encode.cu`` with in-kernel
+   clock counters), with its time, registers and spills; the bf16 encoder
+   kernel's registers, spills, shared memory and count of ``HMMA``
+   (tensor-core) instructions in its SASS (``cuobjdump -sass``), which must
+   not be 0;
 3. each kernel against its plain PyTorch version at full width (hidden 128),
    at batches that are not a multiple of the kernels' row tiles:
    ``fused_serve`` without and with a static context (C = 128),
@@ -43,7 +47,8 @@ one line each or more:
    ``fused_encode_tokens`` and ``fused_ar_decode`` at both transformer
    presets' shapes (per row: no peers, K = 4 "none" and "mean", the
    windows; the shared tier with δv) against their bf16 plain versions
-   (BF16_TOL) and the f32 plain versions (JAX's 0.08); the bf16-compute
+   (BF16_TOL) and the f32 plain versions (JAX's 0.08), the encoder also to
+   the floor below and a bit-equal repeat; the bf16-compute
    tiers of the ``lstm_seq_states``, ``ss_decode`` and ``aligned_ss_decode``
    kernels (``train --train-compute bfloat16``) against their bf16 and their
    f32 plain versions (BF16C_*: about 10x the gap read to the bf16 one,
@@ -139,7 +144,9 @@ one line each or more:
    at B = 16384 and 65536; a profile of one B = 16384 call; both kernels
    alone in both tiers against plain (the encoder also against
    ``nn.TransformerEncoder`` with the same weights, in the tier's type) at
-   B = 16384;
+   B = 16384; the bf16 encoder's time beside its time before the
+   tensor-core design (``ENC_BF16_BEFORE``), its bound's share, its
+   readings and the time split of its probe build;
 14. the ``transformer-30`` training main path: ``train.train_loop`` at
    B = 4096 with K = 4 peers, noisy teacher forcing annealing 1 → 0.3, the
    encoder on the three ``fused_encode_train`` kernels (``train_impl``
@@ -195,6 +202,7 @@ and last the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
+import ctypes
 import functools
 import json
 import math
@@ -318,6 +326,15 @@ BF16C_TIGHT.update(serve=1e-2, encode=1e-2, ctx=1e-3, cell=CELL_TOL)
 # JAX's own bound for the tier against the f32 reference
 # (tests/test_transformer_decode.py:70)
 BF16_TOL, BF16_F32_TOL = 5e-2, 0.08
+# the bf16 encoder (row 10b, on the tensor cores) as the other
+# bf16 tiers are held (check_outputs): within BF16_TOL of its bf16 plain
+# version, BF16_F32_TOL of the f32 one, and the floor; its enc_mem is f32
+ABSOLUTE += ("tf_encode",)
+BF16C_TIGHT["tf_encode"], BF16C_CONTRACT["tf_encode"] = BF16_TOL, BF16_F32_TOL
+# row 10b's time before the tensor-core design (PERF.md §6: CUDA events at
+# B = 16384, T = 30, L = 2 on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
+# beside this run's time
+ENC_BF16_BEFORE = 19.151
 # served bf16 answers (unit xyz) against the CPU plain path in the same tier
 # (measured 1.30e-2 over 248 rows in the same run)
 BF16_ANSWER_TOL = 5e-2
@@ -498,6 +515,9 @@ WRAPPERS = {name: wrapper for name, _, _, wrapper, _ in KERNELS}
 ERRS = {name: 0.0 for name in WRAPPERS}  # max abs error vs plain over every check
 TIMES = {}  # kernel name -> {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}
 BUILD_LOGS = {}  # kernel source -> nvcc's ptxas report of this run's build
+PROBE_BUILD = None  # the probe build of transformer_encode.cu (-DTFM_PROBE: clock64 counters)
+PROBE_PARTS = ("prologue", "in_proj", "layer norms", "chunk waits", "mma", "epilogues", "b1 + GELU", "attention",
+               "barriers", "rows out")  # tfm::Part, in order
 
 
 def note_err(name, err):
@@ -1085,8 +1105,9 @@ def check_all_kernels(dev):
     for b, t, pool, w in ((4099, 30, "none", 2), (4099, 30, "mean", 0), (2053, 100, "none", 8)):
         errs[f"shared B={b} {t}+{t} pool={pool} window={w} dv"] = check_tf_shared_bf16(dev, b, t, pool, w, seed=t + w)
     print(f"bf16 tiers of fused_encode_tokens and fused_ar_decode vs their bf16 plain versions (tolerance "
-          f"{BF16_TOL}) and vs f32 plain (tolerance {BF16_F32_TOL}), hidden 128, L=2; the encoder at T <= 64; the "
-          f"shared tier over G=3 groups with δv: {json.dumps(errs)}", flush=True)
+          f"{BF16_TOL}) and vs f32 plain (tolerance {BF16_F32_TOL}), hidden 128, L=2; the encoder at T <= 64, its "
+          f"floor (least mean-gap ratio to the bf16 plain version's, from f32; limit {BF16C_FLOOR}) and a repeat "
+          f"bit-equal; the shared tier over G=3 groups with δv: {json.dumps(errs)}", flush=True)
     errs = {f"B={b} D_in={d}": check_cell(dev, b, d, seed=b + d) for b in (16384, 16383) for d in (3, 128)}
     print(f"fused_lstm_cell vs lstm_cell, hidden 128: max_abs_err {json.dumps(errs)} (tolerance {CELL_TOL})",
           flush=True)
@@ -1841,6 +1862,29 @@ def ptxas_resources(source, symbol):
                 props["smem_bytes"] = int(ln.split(" bytes smem")[0].split(",")[-1]) if "smem" in ln else 0
                 return props
     return {"registers": "not reported (cached build)"}
+
+
+def report_tensor_cores(build):
+    """encode_tokens_kernel<bf16>'s registers, spills and shared memory
+    (ptxas; the dynamic shared memory from the library) and the count of
+    HMMA instructions in its SASS (cuobjdump of the built library); fails
+    if there are none: the bf16 encoder's products run on the tensor cores."""
+    sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass", str(build.path)],
+                          capture_output=True, text=True, check=True).stdout
+    hmma, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ("bf16" if "nv_bfloat16" in ln else "f32") if "encode_tokens_kernel" in ln else None
+        elif fn and "HMMA" in ln:
+            hmma[fn] = hmma.get(fn, 0) + 1
+    props = ptxas_resources("transformer_encode", ("encode_tokens_kernel", "I13__nv_bfloat16E"))
+    lib = transformer_encode.bind(ctypes.CDLL(str(build.path)))
+    print(f"encode_tokens_kernel<bf16>: {hmma.get('bf16', 0)} HMMA instructions in its SASS (f32 tier: "
+          f"{hmma.get('f32', 0)}); {json.dumps(props)}, {lib.transformer_encode_smem_bytes(1)} bytes of dynamic shared "
+          f"memory a block (f32 tier {lib.transformer_encode_smem_bytes(0)})", flush=True)
+    if not hmma.get("bf16"):
+        raise AssertionError("encode_tokens_kernel<bf16> has no HMMA instruction: its products do not run on the "
+                             "tensor cores")
 
 
 def report_dw(smi):
@@ -2663,12 +2707,15 @@ def check_tf_bf16(dev, batch, t, k, pool, window, seed):
     bf16 = torch.bfloat16
     m, params, past_n, enc, y0, pm, pv = tf_case(dev, batch, t, t, 2, k, pool, window, seed)
     errs = {}
+    floor = None
     if transformer_encode.encode_kernel_fits(t):
         enc_k = transformer_encode.fused_encode_tokens(params, m, past_n, compute_dtype=bf16)
         torch.cuda.synchronize()
-        errs["encode"] = (enc_k - transformer._encode(params, m, past_n, bf16)).abs().max().item()
-        errs["encode_vs_f32"] = (enc_k - enc).abs().max().item()
-        note_err("fused_encode_tokens_bf16", errs["encode"])
+        readings = check_outputs("fused_encode_tokens", [enc_k], [[transformer._encode(params, m, past_n, bf16)],
+                                                                  [enc]], f"B={batch} T={t}", "tf_encode", cd=BF)
+        errs["encode"], errs["encode_vs_f32"], floor = readings["bf16"], readings["f32"], readings["floor"]
+        if not torch.equal(enc_k, transformer_encode.fused_encode_tokens(params, m, past_n, compute_dtype=bf16)):
+            raise AssertionError(f"fused_encode_tokens_bf16 (B={batch}, T={t}) differs on repeat")
     out = transformer_decode.fused_ar_decode(params, m, enc, y0, peer_mem=pm, peer_valid=pv, compute_dtype=bf16)
     torch.cuda.synchronize()
     errs["decode"] = (out - transformer._ar_decode(params, m, enc, pm, pv, y0, compute_dtype=bf16)).abs().max().item()
@@ -2681,6 +2728,8 @@ def check_tf_bf16(dev, batch, t, k, pool, window, seed):
                                                  for key, v in errs.items()):
         raise AssertionError(f"a bf16 tier disagrees (B={batch}, {t}+{t}, K={k}, pool={pool}, window={window}): "
                              f"{json.dumps(errs)}")
+    if floor is not None:
+        errs["encode_floor"] = floor
     return errs
 
 
@@ -2836,6 +2885,8 @@ def time_tf_kernels(dev, params, cfg, batch, smi, keep):
     pm, pv = (x.contiguous() for x in transformer._peer_tokens(params, m, others, None))
     y0 = past_n[:, -1].contiguous()
     enc_flop, dec_flop = tf_work(m, batch, pm.shape[1], int(pv.sum()) * m.h_out)
+    with torch.inference_mode():
+        mem = transformer._encode(params, m, past_n)  # the f32 plain encoder memory
     for tier, sfx, tol, peak in ((torch.float32, "", TF_TOL, F32_FLOPS), (torch.bfloat16, "_bf16", BF16_TOL,
                                                                           BF16_FLOPS)):
         lib_net, lib_emb = (net, emb) if tier == torch.float32 else (encoder_library(params, dev).to(tier),
@@ -2845,7 +2896,12 @@ def time_tf_kernels(dev, params, cfg, batch, smi, keep):
             ref = transformer._encode(params, m, past_n, tier)
             err_e = (enc - ref).abs().max().item()
             lib_err = (lib_net(lib_emb).float() - ref).abs().max().item()
-            if not err_e <= tol:
+            if tier == torch.bfloat16:  # as in phase 3: against both plain versions, the floor, a repeat
+                enc_readings = check_outputs("fused_encode_tokens", [enc], [[ref], [mem]], f"B={batch}", "tf_encode",
+                                             cd=BF)
+                if not torch.equal(enc, transformer_encode.fused_encode_tokens(params, m, past_n, compute_dtype=tier)):
+                    raise AssertionError(f"fused_encode_tokens_bf16 at B={batch} differs on repeat")
+            elif not err_e <= tol:
                 raise AssertionError(f"fused_encode_tokens{sfx} at B={batch} disagrees with its plain version: "
                                      f"{err_e:.3e}")
             note_err(f"fused_encode_tokens{sfx}", err_e)
@@ -2854,7 +2910,6 @@ def time_tf_kernels(dev, params, cfg, batch, smi, keep):
                                                                                       compute_dtype=tier),
                              "library": lambda: lib_net(lib_emb)}, {"plain": 2, "kernel": 3, "library": 3})
             # the decode on the f32 plain encoder memory, as check_tf_bf16
-            mem = transformer._encode(params, m, past_n)
             out = transformer_decode.fused_ar_decode(params, m, mem, y0, peer_mem=pm, peer_valid=pv,
                                                      compute_dtype=tier)
             err_d = (out - transformer._ar_decode(params, m, mem, pm, pv, y0, compute_dtype=tier)).abs().max().item()
@@ -2880,6 +2935,39 @@ def time_tf_kernels(dev, params, cfg, batch, smi, keep):
                   f"{tol})" + (f"; library nn.TransformerEncoder ({str(tier)[6:]}) vs plain {lib_err:.3e}"
                                if name.startswith("fused_encode") else "; library: none (AR decode with feedback)"),
                   flush=True)
+            if name == "fused_encode_tokens_bf16":
+                enc_bf16 = {"ms": ms["kernel"], "library_ms": ms["library"], "bound_ms": b_ms, "bound_by": b_by}
+    report_encode_bf16(enc_bf16, enc_readings, params, m, past_n, smi)
+
+
+def report_encode_bf16(t, readings, params, m, past_n, smi):
+    """Row 10b on the tensor cores: this run's time beside its time before
+    the design (ENC_BF16_BEFORE), its bound's share of the time,
+    nn.TransformerEncoder's bf16 time, the readings of check_outputs, and
+    the time split of the probe build (in-kernel clock64 of thread 0 of
+    every block, each part's share of the clocks summed over the blocks)."""
+    lib = transformer_encode.bind(ctypes.CDLL(str(PROBE_BUILD.path)))
+    lib.transformer_encode_probe_read.argtypes = [ctypes.c_void_p]
+    buf = (ctypes.c_ulonglong * len(PROBE_PARTS))()
+    tensors, _ = transformer_encode.layer_pointers(params["enc"], transformer_encode._ENC_LEAVES, m.hidden)
+    pos = transformer._pos_enc(m.h_in, m.hidden, device=past_n.device)
+    with torch.inference_mode():
+        probe = lambda: transformer_encode.launch(lib, tensors, params["in_proj"], pos, past_n, BF)  # noqa: E731
+        probe()
+        torch.cuda.synchronize()
+        lib.transformer_encode_probe_read(buf)  # drop the first call's counts
+        probe_ms = cuda_ms(probe, 2)  # three calls
+        lib.transformer_encode_probe_read(buf)
+    total = sum(buf)
+    split = {part: round(v / total, 4) for part, v in zip(PROBE_PARTS, buf)}
+    blocks = -(-past_n.shape[0] // (64 // m.h_in))
+    print(f"fused_encode_tokens_bf16 (tensor cores): {t['ms']:.3f} ms (before this design {ENC_BF16_BEFORE} ms, "
+          f"PERF.md), bound {t['bound_ms']:.3f} ms ({t['bound_by']}; {t['bound_ms'] / t['ms']:.1%} of the time), "
+          f"nn.TransformerEncoder bf16 {t['library_ms']:.3f} ms ({t['library_ms'] / t['ms']:.2f}x the kernel's time); "
+          f"largest gap to the bf16 plain version {readings['bf16']:.3e}, to f32 {readings['f32']:.3e}, floor "
+          f"{readings['floor']:.4f}; a repeat bit-equal; split of the probe build ({probe_ms:.3f} ms a call, "
+          f"{total / 3 / blocks:.0f} clocks a block): {json.dumps(split)} "
+          f"({smi})", flush=True)
 
 
 def tf_grad_check(cfg, state, train_d):
@@ -3428,11 +3516,17 @@ def main():
     # 2. build every kernel source, one nvcc each, started together
     sources = ("fused_serve", "lstm_train", "lstm_ss", "lstm_align", "conv_resize", "transformer_encode",
                "transformer_decode", "transformer_encode_train")
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+    global PROBE_BUILD
+    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+        probe = pool.submit(_build.build, "transformer_encode", ("TFM_PROBE",))
         builds = dict(zip(sources, pool.map(_build.build, sources)))
+        PROBE_BUILD = probe.result()
     BUILD_LOGS.update({name: b.log for name, b in builds.items()})
     for name, b in builds.items():
         print(f"build: {name}.cu by nvcc in {b.seconds:.2f} s ({b.path.name}) {ptxas_report(b.log)}", flush=True)
+    print(f"build: transformer_encode.cu -DTFM_PROBE (the time split's probe) by nvcc in {PROBE_BUILD.seconds:.2f} s",
+          flush=True)
+    report_tensor_cores(builds["transformer_encode"])
 
     phase("3 kernels vs plain")
     # 3. every kernel against its plain version at full width

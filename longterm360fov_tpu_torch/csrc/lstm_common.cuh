@@ -31,6 +31,7 @@
 #include <algorithm>
 
 #include "compute_type.cuh"
+#include "tensor_core.cuh"
 
 #define MAX_LAYERS 8
 #define TR 4        // batch rows per thread
@@ -523,22 +524,6 @@ struct DwTile<__nv_bfloat16> {
     unsigned short g[2][32][GS];
   };
 };
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Block (column tile, feature tile, slice s): partial[s][row(f)][n] = Σ over
 // the slice's rows q of zp[q][f] · dg[q][n], for the M + 1 packed features

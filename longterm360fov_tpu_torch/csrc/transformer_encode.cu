@@ -34,32 +34,67 @@
 // compute_dtype=bfloat16 arithmetic, not its layout: in_proj and the
 // matrices stored in bf16, every product's activation operand rounded to
 // bf16 where it is written, f32 sums; LN, softmax, GELU, q, k, v and the
-// residual stream in f32 (Store<T> in transformer_common.cuh). It is the
-// same kernel body instanced on the stored type. Its bound: the products in
-// bf16 could run on the tensor cores (989 TFLOP/s dense), so at B = 16384
-// the 0.40 TFLOP take 0.4 ms, and the bytes (0.08 ms) stay below; this FMA
-// design computes them at the f32 rate and reads half the weight bytes
-// from L2. Tensor cores are later work.
+// residual stream in f32. What bounds it on this card: its products, bf16
+// by bf16 summed in f32, are tensor-core work, 0.39 TFLOP at B = 16384
+// (T = 30, L = 2), 0.39 ms at the 989 TFLOP/s dense bf16 peak; the
+// attention (2·T·H MACs a token-layer, 15 GFLOP) stays f32, 0.23 ms on the
+// FMA units beside them; the bytes take 0.08 ms. An FMA design of this tier
+// (this kernel's f32 body on bf16 weights) ran at the f32 rate, 19.15 ms
+// on an NVIDIA H100 80GB HBM3 at 700 W.
+//
+// What the design does about it (encode_rows_mma, transformer_mma.cuh): a
+// block of 512 threads over the same 64 token rows; the six matrix
+// products on mma.sync m16n8k16 (bf16 operands by ldmatrix from shared
+// memory, f32 accumulators), the weights streamed in 128-row chunks through
+// a two-stage cp.async ring with one barrier a chunk; the LN outputs, the
+// attention output and the MLP's hidden layer stored in bf16 (half the
+// bytes each operand load moves), the residual stream and q, k, v in f32;
+// the attention two threads a (row, head). What is left: the ldmatrix
+// traffic of 16 x 32 warp tiles (each W fragment read by four warps, each
+// A fragment by four), the issue-bound attention and GELU on the FMA
+// units, one block an SM (222 KB of shared memory); wgmma, which reads its
+// operands from shared memory itself, and TMA multicast of the weights
+// across a cluster are the next steps.
+
+#include <type_traits>
 
 #include "transformer_encode.cuh"
+#include "transformer_mma.cuh"
 
 namespace {
 
 using namespace tfm;
 
+// T: float, the f32 tier (encode_rows on gemm64); __nv_bfloat16, the bf16
+// tier on the tensor cores (encode_rows_mma, transformer_mma.cuh)
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
+constexpr int block_threads() {
+  return std::is_same<T, float>::value ? THREADS : MMA_THREADS;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(std::is_same<T, float>::value ? THREADS : MMA_THREADS, 1)
 encode_tokens_kernel(const EncParams p, const float* __restrict__ past,
                      float* __restrict__ enc, int batch, int layers, int t,
                      int d, int seqs) {
   extern __shared__ float4 smem4[];
-  encode_rows<false, T>(p, past, enc, nullptr, batch, layers, t, d, seqs, reinterpret_cast<float*>(smem4));
+  if constexpr (std::is_same<T, float>::value)
+    encode_rows<false, T>(p, past, enc, nullptr, batch, layers, t, d, seqs, reinterpret_cast<float*>(smem4));
+  else
+    encode_rows_mma(p, past, enc, batch, layers, t, d, seqs, reinterpret_cast<unsigned char*>(smem4));
+}
+
+// dynamic shared memory of a block of the tier's kernel, bytes
+template <typename T>
+constexpr int smem_bytes() {
+  return std::is_same<T, float>::value ? SMEM_FLOATS * (int)sizeof(float) : MMA_SMEM_BYTES;
 }
 
 template <typename T>
 int launch(const void* past, void* enc, const void* const* layer_ptrs, const void* w_in,
            const void* pos, int batch, int layers, int t, int d, void* stream) {
-  if (batch < 1 || layers < 1 || layers > MAX_LAYERS || t < 1 || t > ROWS || d < 1)
+  if (batch < 1 || layers < 1 || layers > MAX_LAYERS || t < 1 || t > ROWS || d < 1 ||
+      (!std::is_same<T, float>::value && d > MMA_MAX_D))
     return (int)cudaErrorInvalidValue;
   EncParams p = {};
   for (int l = 0; l < layers; ++l)
@@ -67,13 +102,13 @@ int launch(const void* past, void* enc, const void* const* layer_ptrs, const voi
       p.layer[l][i] = static_cast<const float*>(layer_ptrs[l * ENC_PTRS + i]);
   p.w_in = static_cast<const float*>(w_in);
   p.pos = static_cast<const float*>(pos);
-  const size_t smem = SMEM_FLOATS * sizeof(float);
+  const size_t smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       encode_tokens_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int seqs = ROWS / t;
   const int grid = (batch + seqs - 1) / seqs;
-  encode_tokens_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  encode_tokens_kernel<T><<<grid, block_threads<T>(), smem, static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<const float*>(past), static_cast<float*>(enc), batch, layers, t,
       d, seqs);
   return (int)cudaGetLastError();
@@ -84,9 +119,10 @@ int launch(const void* past, void* enc, const void* const* layer_ptrs, const voi
 extern "C" {
 
 // One launch on `stream`: grid ceil(batch / (64 / t)) blocks of 256
-// threads, 210,944 bytes of dynamic shared memory. past (batch, t, d) and
-// enc (batch, t, 128) f32; layer_ptrs holds 12 device pointers a layer in
-// EncPtr's order; pos (t, 128). Returns cudaGetLastError() (0 = ok), or
+// threads, 210,944 bytes of dynamic shared memory (the bf16 tier: 512
+// threads, 222,208 bytes, d <= 64). past (batch, t, d) and enc (batch, t,
+// 128) f32; layer_ptrs holds 12 device pointers a layer in EncPtr's order;
+// pos (t, 128). Returns cudaGetLastError() (0 = ok), or
 // cudaErrorInvalidValue for a shape the kernel does not take.
 int transformer_encode_f32(const void* past, void* enc, const void* const* layer_ptrs,
                            const void* w_in, const void* pos, int batch, int layers,
@@ -102,8 +138,25 @@ int transformer_encode_bf16(const void* past, void* enc, const void* const* laye
   return launch<__nv_bfloat16>(past, enc, layer_ptrs, w_in, pos, batch, layers, t, d, stream);
 }
 
+// the dynamic shared memory of a block: f32 tier (bf16 = 0) or bf16 tier
+int transformer_encode_smem_bytes(int bf16) {
+  return bf16 ? smem_bytes<__nv_bfloat16>() : smem_bytes<float>();
+}
+
 const char* transformer_encode_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef TFM_PROBE
+// The probe build's clock counters (tfm::Part order, tfm::PARTS of them)
+// since the last read, summed over blocks, into out (host memory); zeroes
+// them. Returns cudaGetLastError()-style codes.
+int transformer_encode_probe_read(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, tfm::g_probe, sizeof(tfm::g_probe));
+  if (err != cudaSuccess) return (int)err;
+  static const unsigned long long zero[tfm::PARTS] = {};
+  return (int)cudaMemcpyToSymbol(tfm::g_probe, zero, sizeof(tfm::g_probe));
+}
+#endif
 
 }  // extern "C"

@@ -43,10 +43,11 @@ __device__ __forceinline__ void rows_out(const float* src, float* __restrict__ d
 
 // The block's forward; smem holds SMEM_FLOATS floats. With kStash, stash
 // (layers, STASH, n_tokens, H) receives every layer's x0, x1, q, k, v, att.
-// T: the stored type of in_proj and the layers' matrices (Store<T>), float
-// or, in the serving kernel's bf16 tier, __nv_bfloat16: then every
-// product's activation operand is rounded to bf16 too (past, the LN
-// outputs, the attention output, the GELU output), q, k, v stay f32.
+// T: the stored type of in_proj and the layers' matrices (Store<T>); both
+// kernels instance it at float (the serving kernel's bf16 tier runs
+// encode_rows_mma, transformer_mma.cuh). At __nv_bfloat16 every product's
+// activation operand would be rounded to bf16 too (past, the LN outputs,
+// the attention output, the GELU output), q, k, v f32.
 template <bool kStash, typename T = float>
 __device__ __forceinline__ void encode_rows(const EncParams& p, const float* __restrict__ past,
                                             float* __restrict__ enc, float* __restrict__ stash,

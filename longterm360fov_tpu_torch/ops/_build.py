@@ -57,17 +57,22 @@ def find_nvcc() -> str:
     )
 
 
-def _lib_path(name: str) -> Path:
+def _flags(defines=()) -> tuple:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def _lib_path(name: str, defines=()) -> Path:
     # the source and every header of csrc/ it may include
     src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    key = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
+    key = hashlib.sha256(src + "\0".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 
 
-def build(name: str) -> Build:
+def build(name: str, defines=()) -> Build:
     """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags is already in the build directory."""
-    path = _lib_path(name)
+    flags is already in the build directory. ``defines``: macro names
+    passed as ``-D`` (a probe build, ``TFM_PROBE``), part of the key."""
+    path = _lib_path(name, defines)
     if path.is_file():
         return Build(path, 0.0, "")
     nvcc = find_nvcc()
@@ -75,7 +80,7 @@ def build(name: str) -> Build:
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [nvcc, *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         capture_output=True, text=True,
     )
     seconds = time.perf_counter() - t0

@@ -38,7 +38,7 @@ from . import _build
 from .fused_lstm import refuse_grad
 
 __all__ = ["fused_encode_tokens", "fused_encode_tokens_bf16", "encode_kernel_fits", "layer_pointers",
-           "stored_pointers", "check_card_tensors", "check_tier", "refuse_grad", "TIERS"]
+           "stored_pointers", "check_card_tensors", "check_tier", "refuse_grad", "launch", "bind", "TIERS"]
 
 MAX_LAYERS = 8  # csrc/transformer_encode.cu MAX_LAYERS
 TIERS = (torch.float32, torch.bfloat16)  # the compute dtypes of the serving kernels
@@ -117,7 +117,7 @@ def fused_encode_tokens(params, cfg, past_n: torch.Tensor, *, compute_dtype=torc
         return transformer._encode(params, cfg, past_n, compute_dtype)
     if past_n.device.type != "cuda":
         raise ValueError(f"fused_encode_tokens runs on cpu or cuda, not {past_n.device}")
-    batch, t, d = past_n.shape
+    _, t, d = past_n.shape
     if cfg.hidden != HIDDEN:
         raise ValueError(f"the kernel takes hidden = {HIDDEN}, got {cfg.hidden}")
     if not encode_kernel_fits(t):
@@ -130,26 +130,34 @@ def fused_encode_tokens(params, cfg, past_n: torch.Tensor, *, compute_dtype=torc
     tensors, _ = layer_pointers(layers, _ENC_LEAVES, HIDDEN)
     pos = transformer._pos_enc(t, HIDDEN, device=past_n.device)
     check_card_tensors([past_n, params["in_proj"], pos], past_n.device, "fused_encode_tokens", vectors=tensors)
-    bf16 = compute_dtype == torch.bfloat16
-    tensors, ptrs = stored_pointers(tensors, _ENC_LEAVES, compute_dtype)
-    w_in = params["in_proj"].to(compute_dtype)
-    enc = torch.empty((batch, t, HIDDEN), device=past_n.device, dtype=torch.float32)
-    lib = _library()
-    with torch.cuda.device(past_n.device):
-        err = (lib.transformer_encode_bf16 if bf16 else lib.transformer_encode_f32)(
-            past_n.data_ptr(), enc.data_ptr(), ptrs, w_in.data_ptr(), pos.data_ptr(),
-            batch, len(layers), t, d, torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(
-            f"transformer_encode kernel launch failed: "
-            f"{_library().transformer_encode_error_string(err).decode()} (cuda error {err})"
-        )
-    (fused_encode_tokens_bf16 if bf16 else fused_encode_tokens).launches += 1
+    enc = launch(_library(), tensors, params["in_proj"], pos, past_n, compute_dtype)
+    (fused_encode_tokens_bf16 if compute_dtype == torch.bfloat16 else fused_encode_tokens).launches += 1
     return enc
 
 
 fused_encode_tokens.launches = 0
+
+
+def launch(lib, tensors, w_in, pos, past_n, compute_dtype) -> torch.Tensor:
+    """One launch of ``lib``'s kernel (``_library()``, or a probe build bound
+    by :func:`bind`) in the tier of ``compute_dtype`` on checked card
+    tensors: ``tensors``, ``layer_pointers``' f32 leaves, converted here as
+    the tier stores them → enc (B, T, H) f32. Counts nothing."""
+    batch, t, d = past_n.shape
+    tensors, ptrs = stored_pointers(tensors, _ENC_LEAVES, compute_dtype)
+    w_in = w_in.to(compute_dtype)
+    enc = torch.empty((batch, t, HIDDEN), device=past_n.device, dtype=torch.float32)
+    with torch.cuda.device(past_n.device):
+        err = (lib.transformer_encode_bf16 if compute_dtype == torch.bfloat16 else lib.transformer_encode_f32)(
+            past_n.data_ptr(), enc.data_ptr(), ptrs, w_in.data_ptr(), pos.data_ptr(),
+            batch, len(tensors) // len(_ENC_LEAVES), t, d, torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"transformer_encode kernel launch failed: "
+            f"{lib.transformer_encode_error_string(err).decode()} (cuda error {err})"
+        )
+    return enc
 
 
 def fused_encode_tokens_bf16(params, cfg, past_n: torch.Tensor) -> torch.Tensor:
@@ -164,11 +172,17 @@ fused_encode_tokens_bf16.launches = 0
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The kernel's library, built at first use and loaded once."""
-    lib = _build.load("transformer_encode")
+    return bind(_build.load("transformer_encode"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``'s C entry points typed for ctypes."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for f in (lib.transformer_encode_f32, lib.transformer_encode_bf16):
         f.argtypes = [vp, vp, ctypes.POINTER(vp), vp, vp] + [i32] * 4 + [vp]
         f.restype = i32
+    lib.transformer_encode_smem_bytes.argtypes = [i32]
+    lib.transformer_encode_smem_bytes.restype = i32
     lib.transformer_encode_error_string.argtypes = [i32]
     lib.transformer_encode_error_string.restype = ctypes.c_char_p
     return lib

@@ -497,15 +497,26 @@ def _last_json(out):
     return json.loads(out.strip().splitlines()[-1])
 
 
-def test_cli_train_eval_serve_bench_of_the_preset_on_cpu(tmp_path, capsys):
+@pytest.fixture(scope="module")
+def small_store(tmp_path_factory):
+    """A small synthetic store from ``prepare-data`` (2 users of one video,
+    400 frames, K = 4 other-user slots: 1 real peer, the rest masked), so
+    that the CLI rehearsals below train and evaluate on a few windows."""
+    win = str(tmp_path_factory.mktemp("store") / "win.npz")
+    cli.main(["prepare-data", "--out", win, "--n-users", "2", "--n-videos", "1", "--n-frames", "400",
+              "--n-other-users", "4"])
+    return win
+
+
+def test_cli_train_eval_serve_bench_of_the_preset_on_cpu(tmp_path, capsys, small_store):
     ck = str(tmp_path / "ck")
-    cli.main(["train", "--preset", "stacked-ss-crossuser", "--steps", "3", "--batch-size", "16",
-              "--device", "cpu", "--ckpt-dir", ck])
+    cli.main(["train", "--preset", "stacked-ss-crossuser", "--data", small_store, "--steps", "3",
+              "--batch-size", "16", "--device", "cpu", "--ckpt-dir", ck])
     res = _last_json(capsys.readouterr().out)
     assert res["step"] == 3 and np.isfinite(res["loss"]) and res["teacher_prob"] < 1.0
     assert np.isfinite(res["eval_great_circle_deg"])
-    cli.main(["eval", "--preset", "stacked-ss-crossuser", "--ckpt-dir", ck, "--device", "cpu",
-              "--json", "--peers", "2"])
+    cli.main(["eval", "--preset", "stacked-ss-crossuser", "--data", small_store, "--ckpt-dir", ck,
+              "--device", "cpu", "--json", "--peers", "2"])
     ev = _last_json(capsys.readouterr().out)
     assert len(ev["error_by_step_deg"]) == 30 and ev["n_windows"] > 0
     cli.main(["serve-bench", "--preset", "stacked-ss-crossuser", "--batch", "8", "--iters", "1",
@@ -515,7 +526,7 @@ def test_cli_train_eval_serve_bench_of_the_preset_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cmd", ["eval", "serve-bench", "train"])
-def test_cli_peer_align(cmd, tmp_path, capsys):
+def test_cli_peer_align(cmd, tmp_path, capsys, small_store):
     """--peer-align sets model_peer_align, as the JAX CLI does: train runs
     the lockstep tier, serve-bench serves through it, and eval refuses a
     checkpoint trained without it (the model hash differs) and reads one
@@ -527,6 +538,7 @@ def test_cli_peer_align(cmd, tmp_path, capsys):
         assert sb["peers"] == 4 and sb["horizon"] == 30 and sb["viewers_per_sec"] > 0
         return
     ck = str(tmp_path / "ck")
+    base += ["--data", small_store]
     flags = [] if cmd == "eval" else ["--peer-align"]
     cli.main(["train", *base, *flags, "--steps", "1", "--batch-size", "8", "--ckpt-dir", ck])
     res = _last_json(capsys.readouterr().out)

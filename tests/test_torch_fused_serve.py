@@ -120,6 +120,14 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.find_nvcc()
 
 
+def test_build_cache_key_follows_the_defines():
+    """A probe build (``-DTFM_PROBE``) gets its own library, beside the
+    kernel's, and passes its macro to nvcc."""
+    plain, probe = _build._lib_path("transformer_encode"), _build._lib_path("transformer_encode", ("TFM_PROBE",))
+    assert probe != plain and probe.parent == plain.parent and probe.name.startswith("transformer_encode-")
+    assert _build._flags(("TFM_PROBE",)) == (*_build.NVCC_FLAGS, "-DTFM_PROBE")
+
+
 def test_build_cache_key_follows_source_and_flags(monkeypatch, tmp_path):
     path = _build._lib_path("fused_serve")
     assert path.parent == _build.BUILD_DIR

@@ -1009,6 +1009,44 @@ def test_serve_fused_defaults_to_bf16_on_the_card():
     assert (got - f32).abs().max().item() <= BF16_F32_TOL
 
 
+# The bf16 encoder on the tensor cores (encode_tokens_kernel<bf16>) at the
+# f32 test's shapes, T = 1 and L = 8: within BF16_TOL of its bf16 plain
+# version and BF16_F32_TOL of the f32 one, and at least BF16C_FLOOR of the
+# bf16 plain version's mean gap from the f32 one, so that a kernel that does
+# not round as the tier does fails. A flipped rounding carries through the
+# later layers, so at L = 8 the gap to the bf16 plain version is held to
+# chip_smoke.py's BF16_TOL, 5e-2 (scripts/torch_encode_bf16_probe.py read
+# 2.70e-2 on an NVIDIA H100 80GB HBM3 at 700.00 W, and 2.35e-2 for the FMA
+# design it replaced, against 6.8e-2 between the bf16 and f32 plain
+# versions).
+BF16C_FLOOR = 0.5
+DEEP_BF16_TOL = 5e-2
+
+
+@pytest.mark.parametrize("layers,t,batch", [(2, 30, 257), (1, 6, 8), (3, 64, 5), (2, 7, 1), (2, 30, 16387),
+                                            (2, 1, 100), (8, 30, 50)])
+def test_transformer_bf16_encode_kernel_matches_plain(layers, t, batch):
+    cfg, params, past, enc, *_ = _tfm_case(layers, t, 4, batch, seed=layers)
+    before = transformer_encode.fused_encode_tokens_bf16.launches
+    out = transformer_encode.fused_encode_tokens(params, cfg, past, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert transformer_encode.fused_encode_tokens_bf16.launches == before + 1
+    plain = transformer._encode(params, cfg, past, torch.bfloat16)
+    assert out.shape == enc.shape and torch.isfinite(out).all()
+    assert (out - plain).abs().max().item() <= (BF16_TOL if layers <= 3 else DEEP_BF16_TOL)
+    assert (out - enc).abs().max().item() <= BF16_F32_TOL
+    assert _mean_gap(out, enc) >= BF16C_FLOOR * _mean_gap(plain, enc), "the kernel does not round as the tier does"
+
+
+def test_transformer_bf16_encode_rows_are_independent_and_repeat_bit_equal():
+    cfg, params, past, *_ = _tfm_case(2, 30, 4, 200)
+    bf16 = torch.bfloat16
+    full = transformer_encode.fused_encode_tokens(params, cfg, past, compute_dtype=bf16)
+    assert torch.equal(full, transformer_encode.fused_encode_tokens(params, cfg, past, compute_dtype=bf16))
+    part = transformer_encode.fused_encode_tokens(params, cfg, past[70:131].contiguous(), compute_dtype=bf16)
+    assert torch.equal(full[70:131], part)
+
+
 # ------------------------------------------------- the shared tier and row 11
 # The decode kernel's group-shared tier against the plain shared decode
 # (models.transformer._ar_decode with peer_gid and peer_dv) within 3e-5, and

@@ -313,10 +313,13 @@ def test_cli_train_bf16_resumes_and_eval_refuses_its_checkpoint(tmp_path, capsys
     mixed-dtype moments, resumes, and logs an in-loop evaluation that
     decodes through ``apply`` in bf16 (``train.eval_impl``); ``eval`` of
     its checkpoint stops with JAX's model-hash message (``eval`` has no
-    ``--bf16``, and the dtype is part of the model hash)."""
-    ck, log = str(tmp_path / "ck"), str(tmp_path / "t.jsonl")
-    args = ["train", "--preset", "stacked-ss-crossuser", "--batch-size", "8", "--device", "cpu", "--bf16",
-            "--ckpt-dir", ck, "--log-file", log]
+    ``--bf16``, and the dtype is part of the model hash). On a small
+    ``prepare-data`` store (2 users of one video, K = 4 other-user slots)."""
+    ck, log, win = str(tmp_path / "ck"), str(tmp_path / "t.jsonl"), str(tmp_path / "win.npz")
+    cli.main(["prepare-data", "--out", win, "--n-users", "2", "--n-videos", "1", "--n-frames", "400",
+              "--n-other-users", "4"])
+    args = ["train", "--preset", "stacked-ss-crossuser", "--data", win, "--batch-size", "8", "--device", "cpu",
+            "--bf16", "--ckpt-dir", ck, "--log-file", log]
     cli.main(args + ["--steps", "2"])
     cli.main(args + ["--steps", "3", "--resume"])
     out = capsys.readouterr().out
