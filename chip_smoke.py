@@ -6,11 +6,13 @@ one line each or more:
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
 2. the build of every kernel source in ``csrc/`` (one nvcc each, started
-   together, and a probe build of ``transformer_encode.cu`` with in-kernel
-   clock counters), with its time, registers and spills; the bf16 encoder
-   kernel's registers, spills, shared memory and count of ``HMMA``
-   (tensor-core) instructions in its SASS (``cuobjdump -sass``), which must
-   not be 0;
+   together, and probe builds of ``transformer_encode.cu`` and
+   ``transformer_encode_train.cu`` with in-kernel clock counters), with its
+   time, registers and spills; the registers, spills, shared memory and
+   count of ``HMMA`` (tensor-core) instructions in the SASS (``cuobjdump
+   -sass``) of the encoder kernels whose products run on the tensor cores,
+   none of which may be 0: the bf16 tier, and the f32 tier and row 11's
+   forward and reverse (three-pass TF32);
 3. each kernel against its plain PyTorch version at full width (hidden 128),
    at batches that are not a multiple of the kernels' row tiles:
    ``fused_serve`` without and with a static context (C = 128),
@@ -41,7 +43,8 @@ one line each or more:
    kernels (B = 4096 at T = 30, a ragged B, T = 13 and 64): forward and
    stash against plain, every gradient against autograd through
    ``_encode``, the reduction equal to the block-order sum, two runs
-   bit-equal; ``fused_lstm_cell`` (D_in = 3 and 128, B = 16384 and 16383)
+   bit-equal (and the f32 encoder kernels at T = 1 and L = 8 too, the
+   serving kernel's repeat bit-equal); ``fused_lstm_cell`` (D_in = 3 and 128, B = 16384 and 16383)
    against ``lstm_cell``; ``fused_decode`` (L = 1 and 2, C = 0 and 128, 30
    steps, B = 16383) against its plain version; the bf16 tiers of
    ``fused_encode_tokens`` and ``fused_ar_decode`` at both transformer
@@ -61,7 +64,9 @@ one line each or more:
    ``fused_serve`` at 30 + 30 steps without and with a static context
    (C = 128 and 64), ``fused_encode`` on the crossuser peer rows, the
    lockstep tier at 100 + 100 steps (K = 7 and 3), the cell at D_in = 3 and
-   128;
+   128; then the time splits of the f32 encoder's probe builds (row 10 at
+   B = 16384, row 11's forward and reverse at 4096), each beside the FMA
+   design's (``ENC_F32_SPLIT_BEFORE``);
 4. the ``seq2seq-tf-30`` serving main path: ``serving.make_serve_fn`` behind
    a ``DynamicBatcher`` answers 64 concurrent single-viewer requests and one
    bulk request; every answer equals the direct batched call and the numpy
@@ -144,9 +149,11 @@ one line each or more:
    at B = 16384 and 65536; a profile of one B = 16384 call; both kernels
    alone in both tiers against plain (the encoder also against
    ``nn.TransformerEncoder`` with the same weights, in the tier's type) at
-   B = 16384; the bf16 encoder's time beside its time before the
-   tensor-core design (``ENC_BF16_BEFORE``), its bound's share, its
-   readings and the time split of its probe build;
+   B = 16384, and the f32 encoder at 65,536 too; the bf16 encoder's time
+   beside its time before the tensor-core design (``ENC_BF16_BEFORE``), its
+   bound's share, its readings and the time split of its probe build; the
+   f32 encoder's beside its FMA design's (``ENC_F32_BEFORE``) and its bound
+   beside the FMA units' bound of the same work;
 14. the ``transformer-30`` training main path: ``train.train_loop`` at
    B = 4096 with K = 4 peers, noisy teacher forcing annealing 1 → 0.3, the
    encoder on the three ``fused_encode_train`` kernels (``train_impl``
@@ -155,7 +162,7 @@ one line each or more:
    port's and against plain autograd on the card, with the same noise; the
    step's speed under "xla" and "auto" in turns, a profile of each; the
    three kernels alone against plain and ``nn.TransformerEncoder`` under
-   autograd;
+   autograd, the forward and the reverse beside their FMA design's times;
 15. the ``transformer-10s`` serving main path (100 + 100 frames, K = 4,
    window 8): the batcher with per-row peers (K, two, all masked) in front
    of the plain encoder and the per-row decode kernel (bf16 by default,
@@ -196,8 +203,9 @@ Then one JSON line on the kernels (launches on their main path, max error
 over every check, kernel, plain and library times by CUDA events, and the
 bound: the larger of the work's FLOP over the peak of its type, the f32
 FMA peak or, for the bf16 tiers' products, the dense bf16 tensor-core
-peak, and its bytes, in the types the tier stores and reads, over the
-memory rate),
+peak, or, for the f32 encoder's products (three-pass TF32), a third of the
+dense TF32 peak beside its attention on the FMA units, and its bytes, in
+the types the tier stores and reads, over the memory rate),
 and last the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -285,6 +293,9 @@ BF16C_TIGHT = {"fwd": 1e-2, "rec": 1e-2, "sum": 1e-4, "ctx_sum": 2e-3, "loss": 5
 BF16C_FLOOR = 0.5
 F32_FLOPS = 67e12  # H100 SXM f32 FMA peak outside the tensor cores (data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
+# f32-accurate products as three-pass TF32 on the tensor cores: the dense
+# TF32 peak (495 TFLOP/s, data sheet) over three passes
+TF32X3_FLOPS = 495e12 / 3
 HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
 # the dW reductions' times before the pack-and-tensor-core design (PERF.md
 # §6's earlier readings, CUDA events on an NVIDIA H100 80GB HBM3 at
@@ -335,6 +346,19 @@ BF16C_TIGHT["tf_encode"], BF16C_CONTRACT["tf_encode"] = BF16_TOL, BF16_F32_TOL
 # B = 16384, T = 30, L = 2 on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
 # beside this run's time
 ENC_BF16_BEFORE = 19.151
+# the f32 encoder's kernels before the three-pass TF32 design (rows 10 and
+# 11 on the FMA units, PERF.md): their times (§6, CUDA events at B = 16384,
+# and 4096 for row 11, on an NVIDIA H100 80GB HBM3 at 700.00 W) and the
+# time splits of their probe builds (§5, scripts/torch_encode_f32_probe.py
+# on the same card), printed beside this run's
+ENC_F32_BEFORE = {"fused_encode_tokens": 23.980, "encode_train_fwd": 6.458, "encode_train_bwd": 15.915}
+ENC_F32_SPLIT_BEFORE = {
+    "fused_encode_tokens": {"mma": 0.627, "attention": 0.162, "barriers": 0.052, "chunk waits": 0.051,
+                            "in_proj": 0.033, "layer norms": 0.023, "b1 + GELU": 0.022, "epilogues": 0.017},
+    "encode_train_fwd": {"mma": 0.608, "attention": 0.159, "chunk waits": 0.062, "barriers": 0.047, "in_proj": 0.035,
+                         "layer norms": 0.025, "b1 + GELU": 0.025, "epilogues": 0.016, "stash": 0.013},
+    "encode_train_bwd": {"mma": 0.339, "attention": 0.224, "dW products": 0.220, "chunk waits": 0.040, "stash": 0.040,
+                         "barriers": 0.037, "partial writes": 0.032, "b1 + GELU": 0.030, "layer norms": 0.025}}
 # served bf16 answers (unit xyz) against the CPU plain path in the same tier
 # (measured 1.30e-2 over 248 rows in the same run)
 BF16_ANSWER_TOL = 5e-2
@@ -516,8 +540,9 @@ ERRS = {name: 0.0 for name in WRAPPERS}  # max abs error vs plain over every che
 TIMES = {}  # kernel name -> {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}
 BUILD_LOGS = {}  # kernel source -> nvcc's ptxas report of this run's build
 PROBE_BUILD = None  # the probe build of transformer_encode.cu (-DTFM_PROBE: clock64 counters)
+PROBE_TRAIN_BUILD = None  # the same of transformer_encode_train.cu
 PROBE_PARTS = ("prologue", "in_proj", "layer norms", "chunk waits", "mma", "epilogues", "b1 + GELU", "attention",
-               "barriers", "rows out")  # tfm::Part, in order
+               "barriers", "rows out", "stash", "dW products", "partial writes")  # tfm::Part, in order
 
 
 def note_err(name, err):
@@ -565,10 +590,19 @@ def bound(flop, reads, writes, peak=F32_FLOPS):
     FLOP over ``peak`` (the f32 FMA peak; the bf16 tiers' products at the
     bf16 tensor-core peak) and its bytes (every input read once, every
     output written once, in the types given) over the memory rate → (ms,
-    "operations" or "bytes")."""
+    "operations" or "bytes"). ``flop`` may be {peak: FLOP} for work of
+    several types (the f32 encoder's three-pass TF32 products beside its
+    FMA attention): the operations then take the longest of their types'
+    times, the units running side by side."""
     nbytes = sum(t.numel() * t.element_size() for t in reads + writes if t is not None)
-    ops_ms, bytes_ms = flop / peak * 1e3, nbytes / HBM_BYTES * 1e3
+    work = flop if isinstance(flop, dict) else {peak: flop}
+    ops_ms, bytes_ms = max(f / pk for pk, f in work.items()) * 1e3, nbytes / HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def flop_of(work):
+    """The FLOP of a bound()'s work: a number, or its types' sum."""
+    return sum(work.values()) if isinstance(work, dict) else work
 
 
 def stack_flop(batch, t_len, ins, hidden):
@@ -1077,10 +1111,11 @@ def check_all_kernels(dev):
                                             ((7, 961, 1917), (32, 64), 8)))}
     print(f"conv_resize vs plain, K=3: max_abs_err {json.dumps(errs)} (tolerance {CONV_REL_TOL} of max|plain|)",
           flush=True)
-    errs = {f"B={b} T={t} L={l}": check_tf_encode(dev, b, t, l, seed=i)
-            for i, (b, t, l) in enumerate(((16384, 30, 2), (4099, 30, 2), (4099, 13, 2), (1001, 64, 1)))}
-    print(f"fused_encode_tokens vs plain, hidden 128: max_abs_err {json.dumps(errs)} (tolerance {TF_TOL})",
-          flush=True)
+    errs = {f"B={b} T={t} L={l}": check_tf_encode(dev, b, t, l, seed=i, repeat=i == 0)
+            for i, (b, t, l) in enumerate(((16384, 30, 2), (4099, 30, 2), (4099, 13, 2), (1001, 64, 1), (129, 1, 2),
+                                           (51, 30, 8)))}
+    print(f"fused_encode_tokens vs plain, hidden 128 (a repeat at B=16384 bit-equal): max_abs_err {json.dumps(errs)} "
+          f"(tolerance {TF_TOL})", flush=True)
     errs = {f"K={k} pool={pool} window={w}": check_tf_decode(dev, 4099, k, pool, w, seed=i)
             for i, (k, pool, w) in enumerate(((0, "none", 0), (4, "none", 0), (4, "mean", 0), (4, "none", 2)))}
     print(f"fused_ar_decode vs plain, hidden 128, L=2, 30+30 steps, B=4099 (with peers: a row with no valid peer, "
@@ -1133,7 +1168,8 @@ def check_all_kernels(dev):
           f"{json.dumps({k: BF16C_TIGHT[k] for k in kinds})}, f32 {json.dumps({k: BF16C_CONTRACT[k] for k in kinds})},"
           f" one bf16 step more on a value stored in bf16; floor {BF16C_FLOOR})", flush=True)
     errs = {f"B={b} T={t} L={l}": check_encode_train(dev, b, t, l, seed=i, repeat=i == 0)
-            for i, (b, t, l) in enumerate(((TRAIN_B, 30, 2), (4099, 30, 2), (4099, 13, 2), (1001, 64, 1)))}
+            for i, (b, t, l) in enumerate(((TRAIN_B, 30, 2), (4099, 30, 2), (4099, 13, 2), (1001, 64, 1), (65, 1, 2),
+                                           (21, 30, 8)))}
     print(f"fused_encode_train kernels vs plain, hidden 128 (forward and stash vs plain {TF_TOL}; every gradient "
           f"vs autograd through _encode {GRAD_TOL}·max(|g|, 1); the reduction equal to the block-order sum; two runs "
           f"at B={TRAIN_B} bit-equal): {json.dumps(errs)}", flush=True)
@@ -1864,27 +1900,36 @@ def ptxas_resources(source, symbol):
     return {"registers": "not reported (cached build)"}
 
 
-def report_tensor_cores(build):
-    """encode_tokens_kernel<bf16>'s registers, spills and shared memory
-    (ptxas; the dynamic shared memory from the library) and the count of
-    HMMA instructions in its SASS (cuobjdump of the built library); fails
-    if there are none: the bf16 encoder's products run on the tensor cores."""
-    sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass", str(build.path)],
-                          capture_output=True, text=True, check=True).stdout
-    hmma, fn = {}, None
-    for ln in sass.splitlines():
-        if "Function :" in ln:
-            fn = ("bf16" if "nv_bfloat16" in ln else "f32") if "encode_tokens_kernel" in ln else None
-        elif fn and "HMMA" in ln:
-            hmma[fn] = hmma.get(fn, 0) + 1
-    props = ptxas_resources("transformer_encode", ("encode_tokens_kernel", "I13__nv_bfloat16E"))
-    lib = transformer_encode.bind(ctypes.CDLL(str(build.path)))
-    print(f"encode_tokens_kernel<bf16>: {hmma.get('bf16', 0)} HMMA instructions in its SASS (f32 tier: "
-          f"{hmma.get('f32', 0)}); {json.dumps(props)}, {lib.transformer_encode_smem_bytes(1)} bytes of dynamic shared "
-          f"memory a block (f32 tier {lib.transformer_encode_smem_bytes(0)})", flush=True)
-    if not hmma.get("bf16"):
-        raise AssertionError("encode_tokens_kernel<bf16> has no HMMA instruction: its products do not run on the "
-                             "tensor cores")
+def report_tensor_cores(builds):
+    """The registers, spills and shared memory (ptxas; the dynamic shared
+    memory from the libraries) of the encoder kernels whose products run on
+    the tensor cores, and the count of HMMA instructions in each one's SASS
+    (cuobjdump of the built library); fails if a kernel has none: the bf16
+    tier (mma.sync bf16) and the f32 tier and training kernels (three-pass
+    TF32)."""
+    kernels = {"encode_tokens_kernel<bf16>": ("transformer_encode", ("encode_tokens_kernel", "nv_bfloat16")),
+               "encode_tokens_kernel<float>": ("transformer_encode", ("encode_tokens_kernel", "IfE")),
+               "encode_stash_kernel": ("transformer_encode_train", ("encode_stash_kernel",)),
+               "encode_reverse_kernel": ("transformer_encode_train", ("encode_reverse_kernel",))}
+    hmma = dict.fromkeys(kernels, 0)
+    for source in ("transformer_encode", "transformer_encode_train"):
+        sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
+                               str(builds[source].path)], capture_output=True, text=True, check=True).stdout
+        fn = None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                fn = next((k for k, (src, parts) in kernels.items()
+                           if src == source and all(p in ln for p in parts)), None)
+            elif fn and "HMMA" in ln:
+                hmma[fn] += 1
+    enc = transformer_encode.bind(ctypes.CDLL(str(builds["transformer_encode"].path)))
+    dyn = {"encode_tokens_kernel<bf16>": enc.transformer_encode_smem_bytes(1),
+           "encode_tokens_kernel<float>": enc.transformer_encode_smem_bytes(0)}
+    for name, (source, parts) in kernels.items():
+        print(f"{name}: {hmma[name]} HMMA instructions in its SASS; {json.dumps(ptxas_resources(source, parts))}"
+              + (f", {dyn[name]} bytes of dynamic shared memory a block" if name in dyn else ""), flush=True)
+    if not all(hmma.values()):
+        raise AssertionError(f"an encoder kernel has no HMMA instruction, its products off the tensor cores: {hmma}")
 
 
 def report_dw(smi):
@@ -2620,8 +2665,9 @@ def tf_case(dev, batch, t_in, t_out, layers=2, k=0, pool="none", window=0, seed=
     return m, params, past_n, enc, past_n[:, -1].contiguous(), pm, pv
 
 
-def check_tf_encode(dev, batch, t, layers, seed):
-    """fused_encode_tokens against transformer._encode → max abs error."""
+def check_tf_encode(dev, batch, t, layers, seed, repeat=False):
+    """fused_encode_tokens against transformer._encode (with ``repeat``, a
+    second call bit-equal) → max abs error."""
     m, params, past_n, enc, *_ = tf_case(dev, batch, t, 4, layers, seed=seed)
     out = transformer_encode.fused_encode_tokens(params, m, past_n)
     torch.cuda.synchronize()
@@ -2629,6 +2675,8 @@ def check_tf_encode(dev, batch, t, layers, seed):
     if out.shape != enc.shape or not torch.isfinite(out).all() or not err <= TF_TOL:
         raise AssertionError(f"fused_encode_tokens disagrees with its plain version (B={batch}, T={t}, "
                              f"L={layers}): {err:.3e}")
+    if repeat and not torch.equal(out, transformer_encode.fused_encode_tokens(params, m, past_n)):
+        raise AssertionError(f"fused_encode_tokens at B={batch} differs on repeat")
     note_err("fused_encode_tokens", err)
     return err
 
@@ -2922,7 +2970,8 @@ def time_tf_kernels(dev, params, cfg, batch, smi, keep):
                                                                                 peer_valid=pv, compute_dtype=tier)},
                             {"plain": 1, "kernel": 2})
         weights = stored(tree_leaves(params), tier)
-        io = {f"fused_encode_tokens{sfx}": (enc_flop, [past_n] + stored(
+        enc_work = enc_flop if tier == BF else tf32_work(enc_flop, 2 * batch * m.h_in * m.layers * 12 * m.hidden ** 2)
+        io = {f"fused_encode_tokens{sfx}": (enc_work, [past_n] + stored(
                   [params["in_proj"]] + tree_leaves(params["enc"]), tier), [enc]),
               f"fused_ar_decode{sfx}": (dec_flop, [mem, y0, pm, pv] + weights, [out])}
         for name, ms, err in ((f"fused_encode_tokens{sfx}", ms_e, err_e), (f"fused_ar_decode{sfx}", ms_d, err_d)):
@@ -2931,13 +2980,115 @@ def time_tf_kernels(dev, params, cfg, batch, smi, keep):
                 record(name, ms, *io[name], peak)
             print(f"{name} alone (B={batch}, L={m.layers}, {m.h_in}+{m.h_out} steps, K={k}: {pm.shape[1]} peer "
                   f"tokens; ms, CUDA events, {smi}): {json.dumps(ms)}; bound {b_ms:.3f} ms by {b_by} "
-                  f"({io[name][0] / ms['kernel'] / 1e9:.2f} TFLOP/s); max_abs_err vs plain {err:.3e} (tolerance "
+                  f"({flop_of(io[name][0]) / ms['kernel'] / 1e9:.2f} TFLOP/s); max_abs_err vs plain {err:.3e} (tolerance "
                   f"{tol})" + (f"; library nn.TransformerEncoder ({str(tier)[6:]}) vs plain {lib_err:.3e}"
                                if name.startswith("fused_encode") else "; library: none (AR decode with feedback)"),
                   flush=True)
             if name == "fused_encode_tokens_bf16":
                 enc_bf16 = {"ms": ms["kernel"], "library_ms": ms["library"], "bound_ms": b_ms, "bound_by": b_by}
+            elif name == "fused_encode_tokens":
+                report_encode_f32(name, ms, *io[name], smi)
     report_encode_bf16(enc_bf16, enc_readings, params, m, past_n, smi)
+
+
+def probe_split(read, fn, blocks, calls=2):
+    """The time split of a probe build's kernel: ``fn`` launches it, ``read``
+    copies out and zeroes the clock counters (tfm::Part order). The first
+    call's counts are dropped, then ``calls`` + 1 calls are counted → (ms a
+    call, each part's share of the clocks summed over the blocks, clocks a
+    block a call)."""
+    buf = (ctypes.c_ulonglong * len(PROBE_PARTS))()
+    fn()
+    torch.cuda.synchronize()
+    read(buf)
+    ms = cuda_ms(fn, calls)
+    read(buf)
+    total = sum(buf)
+    return ms, {part: round(v / total, 4) for part, v in zip(PROBE_PARTS, buf) if v}, total / (calls + 1) / blocks
+
+
+def probe_lib(build, bind, read):
+    """A probe build's library, typed: ``bind`` (the wrapper module's) and
+    its counters' ``read`` entry point."""
+    lib = bind(ctypes.CDLL(str(build.path)))
+    getattr(lib, read).argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def encode_split(params, m, past_n, tier=F32):
+    """The time split of row 10's tier of ``tier`` in its probe build
+    (PROBE_BUILD) on these inputs → (ms, split, clocks a block)."""
+    lib = probe_lib(PROBE_BUILD, transformer_encode.bind, "transformer_encode_probe_read")
+    tensors, _ = transformer_encode.layer_pointers(params["enc"], transformer_encode._ENC_LEAVES, m.hidden)
+    pos = transformer._pos_enc(m.h_in, m.hidden, device=past_n.device)
+    with torch.inference_mode():
+        return probe_split(lib.transformer_encode_probe_read,
+                           lambda: transformer_encode.launch(lib, tensors, params["in_proj"], pos, past_n, tier),
+                           -(-past_n.shape[0] // (64 // m.h_in)))
+
+
+def encode_train_splits(params, m, past_n, cot):
+    """The time splits of row 11's forward with the stash and its reverse
+    (``cot``, the cotangent of enc_mem) in their probe build
+    (PROBE_TRAIN_BUILD) on these inputs → {kernel: (ms, split, clocks a
+    block)}."""
+    from unittest import mock
+
+    lib = probe_lib(PROBE_TRAIN_BUILD, encode_train.bind, "transformer_encode_train_probe_read")
+    leaves = [lay[sub][leaf] for lay in params["enc"] for sub, leaf in encode_train._ENC_LEAVES]
+    blocks = -(-past_n.shape[0] // (64 // m.h_in))
+
+    def fwd():
+        return encode_train.encode_train_fwd(m, past_n, params["in_proj"], leaves)
+
+    with torch.inference_mode(), mock.patch.object(encode_train, "_library", lambda: lib):
+        stash = fwd()[1]
+        return {"encode_train_fwd": probe_split(lib.transformer_encode_train_probe_read, fwd, blocks),
+                "encode_train_bwd": probe_split(
+                    lib.transformer_encode_train_probe_read,
+                    lambda: encode_train.encode_train_bwd(m, past_n, params["in_proj"], leaves, stash, cot, True),
+                    blocks)}
+
+
+def time_encode_f32(dev, params, cfg, batch, smi, before):
+    """Row 10's f32 tier alone at a larger serving batch, checked first,
+    against its plain version and nn.TransformerEncoder in turns, beside its
+    FMA design's time there (``before``, PERF.md)."""
+    m = cfg.model
+    rng = np.random.default_rng(19)
+    past_n = windows.normalize_window(unit_rows(rng, dev, (batch, m.h_in)))[0].contiguous()
+    net = encoder_library(params, dev)
+    emb = past_n @ params["in_proj"] + transformer._pos_enc(m.h_in, m.hidden, device=dev)
+    with torch.inference_mode():
+        enc = transformer_encode.fused_encode_tokens(params, m, past_n)
+        err = (enc - transformer._encode(params, m, past_n)).abs().max().item()
+        if not err <= TF_TOL:
+            raise AssertionError(f"fused_encode_tokens at B={batch} disagrees with its plain version: {err:.3e}")
+        note_err("fused_encode_tokens", err)
+        ms = in_turns({"plain": lambda: transformer._encode(params, m, past_n),
+                       "kernel": lambda: transformer_encode.fused_encode_tokens(params, m, past_n),
+                       "library": lambda: net(emb)}, {"plain": 1, "kernel": 3, "library": 3})
+    flop = tf_work(m, batch, 0, 0)[0]
+    print(f"fused_encode_tokens alone (B={batch}, L={m.layers}, T={m.h_in}; ms, CUDA events, {smi}): "
+          f"{json.dumps(ms)}; max_abs_err vs plain {err:.3e} (tolerance {TF_TOL})", flush=True)
+    report_encode_f32("fused_encode_tokens", ms,
+                      tf32_work(flop, 2 * batch * m.h_in * m.layers * 12 * m.hidden ** 2),
+                      [past_n, params["in_proj"]] + tree_leaves(params["enc"]), [enc], smi, before)
+
+
+def report_f32_splits(dev, smi):
+    """Phase 3: the time splits of the f32 encoder's probe builds at the main
+    paths' shapes (row 10 at B = 16384, row 11's two kernels at B = 4096;
+    T = 30, L = 2), each beside the FMA design's (ENC_F32_SPLIT_BEFORE)."""
+    m, params, past_n, *_ = tf_case(dev, 16384, 30, 4, 2, seed=0)
+    splits = {"fused_encode_tokens": encode_split(params, m, past_n)}
+    m, params, past_n, *_ = tf_case(dev, TRAIN_B, 30, 4, 2, seed=0)
+    cot = randn(np.random.default_rng(0), dev, (TRAIN_B, 30, m.hidden))
+    splits.update(encode_train_splits(params, m, past_n, cot))
+    for name, (ms, split, clocks) in splits.items():
+        print(f"{name} time split (probe build, {ms:.3f} ms a call, {clocks:.0f} clocks a block; thread 0's "
+              f"clock64 a part, summed over the blocks; {smi}): {json.dumps(split)}; the FMA design's (PERF.md): "
+              f"{json.dumps(ENC_F32_SPLIT_BEFORE[name])}", flush=True)
 
 
 def report_encode_bf16(t, readings, params, m, past_n, smi):
@@ -2946,27 +3097,13 @@ def report_encode_bf16(t, readings, params, m, past_n, smi):
     nn.TransformerEncoder's bf16 time, the readings of check_outputs, and
     the time split of the probe build (in-kernel clock64 of thread 0 of
     every block, each part's share of the clocks summed over the blocks)."""
-    lib = transformer_encode.bind(ctypes.CDLL(str(PROBE_BUILD.path)))
-    lib.transformer_encode_probe_read.argtypes = [ctypes.c_void_p]
-    buf = (ctypes.c_ulonglong * len(PROBE_PARTS))()
-    tensors, _ = transformer_encode.layer_pointers(params["enc"], transformer_encode._ENC_LEAVES, m.hidden)
-    pos = transformer._pos_enc(m.h_in, m.hidden, device=past_n.device)
-    with torch.inference_mode():
-        probe = lambda: transformer_encode.launch(lib, tensors, params["in_proj"], pos, past_n, BF)  # noqa: E731
-        probe()
-        torch.cuda.synchronize()
-        lib.transformer_encode_probe_read(buf)  # drop the first call's counts
-        probe_ms = cuda_ms(probe, 2)  # three calls
-        lib.transformer_encode_probe_read(buf)
-    total = sum(buf)
-    split = {part: round(v / total, 4) for part, v in zip(PROBE_PARTS, buf)}
-    blocks = -(-past_n.shape[0] // (64 // m.h_in))
+    probe_ms, split, clocks = encode_split(params, m, past_n, BF)
     print(f"fused_encode_tokens_bf16 (tensor cores): {t['ms']:.3f} ms (before this design {ENC_BF16_BEFORE} ms, "
           f"PERF.md), bound {t['bound_ms']:.3f} ms ({t['bound_by']}; {t['bound_ms'] / t['ms']:.1%} of the time), "
           f"nn.TransformerEncoder bf16 {t['library_ms']:.3f} ms ({t['library_ms'] / t['ms']:.2f}x the kernel's time); "
           f"largest gap to the bf16 plain version {readings['bf16']:.3e}, to f32 {readings['f32']:.3e}, floor "
           f"{readings['floor']:.4f}; a repeat bit-equal; split of the probe build ({probe_ms:.3f} ms a call, "
-          f"{total / 3 / blocks:.0f} clocks a block): {json.dumps(split)} "
+          f"{clocks:.0f} clocks a block): {json.dumps(split)} "
           f"({smi})", flush=True)
 
 
@@ -3038,14 +3175,38 @@ def time_tf_step(cfg, state, train_d, path, smi, iters=(3, 6)):
                        stepper(w), 3, smi)
 
 
+def tf32_work(flop, products):
+    """The f32 encoder's work by type: its matrix products on the tensor
+    cores as three-pass TF32, the rest (attention, in_proj) on the FMA
+    units → {peak: FLOP}, for bound()."""
+    return {TF32X3_FLOPS: products, F32_FLOPS: flop - products}
+
+
 def encoder_train_work(m, batch):
-    """FLOP of fused_encode_train at width H → (forward, reverse). The
-    reverse counts what the gradients need: the input and the weight
-    gradient of every product (twice the forward's 12·H² MACs a
-    token-layer) and of the attention (twice its 2·T·H), and in_proj's two."""
+    """FLOP of fused_encode_train at width H → (forward, reverse), each by
+    type (tf32_work). The reverse counts what the gradients need: the input
+    and the weight gradient of every product (twice the forward's 12·H²
+    MACs a token-layer) and of the attention (twice its 2·T·H), and
+    in_proj's two."""
     h, t, layers, d = m.hidden, m.h_in, m.layers, m.d
     fwd = 2 * batch * t * (d * h + layers * (12 * h * h + 2 * t * h))
-    return fwd, 2 * batch * t * (2 * d * h + layers * (24 * h * h + 4 * t * h))
+    bwd = 2 * batch * t * (2 * d * h + layers * (24 * h * h + 4 * t * h))
+    return (tf32_work(fwd, 2 * batch * t * layers * 12 * h * h),
+            tf32_work(bwd, 2 * batch * t * layers * 24 * h * h))
+
+
+def report_encode_f32(name, ms, work, reads, writes, smi, before=None):
+    """One of the f32 encoder's kernels on three-pass TF32: this run's time
+    beside its time before the design (``before``, else ENC_F32_BEFORE),
+    its bound and the bound's share of the time, beside the bound of the
+    same work on the FMA units, and its library call's time."""
+    b_ms, b_by = bound(work, reads, writes)
+    fma_ms, fma_by = bound(sum(work.values()), reads, writes, F32_FLOPS)
+    before = ENC_F32_BEFORE[name] if before is None else before
+    print(f"{name} (three-pass TF32): {ms['kernel']:.3f} ms (before this design {before} ms, "
+          f"PERF.md), bound {b_ms:.3f} ms ({b_by}; {b_ms / ms['kernel']:.1%} of the time; on the FMA units "
+          f"{fma_ms:.3f} ms by {fma_by}), library {ms['library']:.3f} ms ({ms['library'] / ms['kernel']:.2f}x "
+          f"the kernel's time) ({smi})", flush=True)
 
 
 def time_encode_train(dev, params, cfg, batch, smi):
@@ -3095,6 +3256,8 @@ def time_encode_train(dev, params, cfg, batch, smi):
         print(f"{name} alone (B={batch}, T={m.h_in}, L={m.layers}, {parts.shape[0]} blocks; ms, CUDA events, "
               f"{smi}): {json.dumps(t)}; bound {TIMES[name]['bound_ms']:.3f} ms by {TIMES[name]['bound_by']}",
               flush=True)
+        if name in ENC_F32_BEFORE:
+            report_encode_f32(name, t, *io[name], smi)
     del stash, parts, lib_out
     x = past_n.clone().requires_grad_(True)
     for leaf in [w_in, *leaves]:
@@ -3516,21 +3679,24 @@ def main():
     # 2. build every kernel source, one nvcc each, started together
     sources = ("fused_serve", "lstm_train", "lstm_ss", "lstm_align", "conv_resize", "transformer_encode",
                "transformer_decode", "transformer_encode_train")
-    global PROBE_BUILD
-    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
-        probe = pool.submit(_build.build, "transformer_encode", ("TFM_PROBE",))
+    global PROBE_BUILD, PROBE_TRAIN_BUILD
+    with ThreadPoolExecutor(max_workers=len(sources) + 2) as pool:
+        probes = [pool.submit(_build.build, name, ("TFM_PROBE",))
+                  for name in ("transformer_encode", "transformer_encode_train")]
         builds = dict(zip(sources, pool.map(_build.build, sources)))
-        PROBE_BUILD = probe.result()
+        PROBE_BUILD, PROBE_TRAIN_BUILD = (p.result() for p in probes)
     BUILD_LOGS.update({name: b.log for name, b in builds.items()})
     for name, b in builds.items():
         print(f"build: {name}.cu by nvcc in {b.seconds:.2f} s ({b.path.name}) {ptxas_report(b.log)}", flush=True)
-    print(f"build: transformer_encode.cu -DTFM_PROBE (the time split's probe) by nvcc in {PROBE_BUILD.seconds:.2f} s",
-          flush=True)
-    report_tensor_cores(builds["transformer_encode"])
+    for name, b in (("transformer_encode", PROBE_BUILD), ("transformer_encode_train", PROBE_TRAIN_BUILD)):
+        print(f"build: {name}.cu -DTFM_PROBE (the time split's probe) by nvcc in {b.seconds:.2f} s", flush=True)
+    report_tensor_cores(builds)
 
     phase("3 kernels vs plain")
-    # 3. every kernel against its plain version at full width
+    # 3. every kernel against its plain version at full width; the f32
+    # encoder's time splits
     check_all_kernels(dev)
+    report_f32_splits(dev, smi)
 
     phase("4 serve seq2seq-tf-30")
     # 4. seq2seq-tf-30 serving
@@ -3673,6 +3839,7 @@ def main():
         profile_device(f"{TF_SERVE}: {str(tier)[6:]} serve call at B=16384",
                        serve_call(tfcfg, tparams, dev, 16384, tier), 2, smi)
     time_tf_kernels(dev, tparams, tfcfg, 16384, smi, keep=True)
+    time_encode_f32(dev, tparams, tfcfg, 65536, smi, before=94.329)
     torch.cuda.empty_cache()
 
     phase("14 train transformer-30")

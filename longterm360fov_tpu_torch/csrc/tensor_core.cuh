@@ -1,10 +1,14 @@
-// The bf16 tensor-core instructions that the hand-written kernels use on
-// Hopper (sm_90a), shared by the LSTM dW product (lstm_common.cuh) and the
-// transformer encoder's bf16 tier (transformer_mma.cuh):
+// The tensor-core instructions that the hand-written kernels use on Hopper
+// (sm_90a), shared by the LSTM dW product (lstm_common.cuh), the
+// transformer encoder's bf16 tier (transformer_mma.cuh) and its f32 tier
+// (transformer_f32mma.cuh):
 //   * ldsm_x4 / ldsm_x4_trans: ldmatrix of four 8 x 8 tiles of 16-bit values
 //     from shared memory, lane l giving the address of row l % 8 of tile
 //     l / 8 (16-byte aligned); .trans hands each lane the transposed tile's
 //     elements, so a k-major (K, N) slab gives mma's "col" B fragments;
+//     without .trans, a row of four 32-bit values is read as eight 16-bit
+//     ones, so lane l gets the 32-bit value at row l / 4, column l % 4 of
+//     each 8 x 4 tile: a TF32 fragment of a k-contiguous operand;
 //   * mma_bf16: mma.sync m16n8k16, bf16 operands, f32 accumulators in place.
 
 #pragma once
@@ -27,6 +31,26 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
                                          unsigned b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The f32 transformer encoder's three-pass TF32 products
+// (transformer_f32mma.cuh):
+//   * tf32_rna: x rounded to TF32 (10 mantissa bits), to nearest, ties away
+//     from zero, as a 32-bit register that mma reads as a .tf32 operand;
+//   * mma_tf32: mma.sync m16n8k8, TF32 operands (A four registers, B two),
+//     f32 accumulators in place.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -1,8 +1,11 @@
-// Device code shared by the transformer kernels (transformer_encode.cu,
-// transformer_decode.cu), f32 arithmetic on the FMA units: a block-wide
-// product of 64 activation rows in shared memory with a weight matrix in
-// device memory, the pre-LN layer norm, the tanh GELU, and one query row's
-// 4-head attention as an online softmax.
+// Device code shared by the transformer kernels (transformer_decode.cu,
+// and in part the encoder's: transformer_encode.cu,
+// transformer_encode_train.cu), f32 arithmetic on the FMA units: the
+// decoder's block-wide product (gemm64) of 64 activation rows in shared
+// memory with a weight matrix in device memory, the pre-LN layer norm, the
+// tanh GELU, and one query row's 4-head attention as an online softmax.
+// The encoder's products run on the tensor cores (transformer_f32mma.cuh,
+// transformer_mma.cuh) and use the constants, Store<T> and gelu_tanh here.
 //
 // Two tiers, by the type T the weights and K/V are stored in (Store<T>):
 // float, exact f32; and __nv_bfloat16, the JAX bf16 tier's arithmetic: the
@@ -12,8 +15,7 @@
 // the residual stream in f32. A bf16 value is exact in f32, so each
 // product term is the exact product of the two rounded operands.
 //
-// Both kernels hold 64 activation rows of width H = 128 in shared memory
-// (token rows in the encoder, batch rows in the decoder):
+// The decoder holds 64 batch rows of width H = 128 in shared memory:
 //   xs  (64, LDX)  the residual stream x
 //   hs  (64, LDX)  a layer norm's output, the input of the products
 //   big (64, 528)  q, k, v and the attention output as four (64, LDX)

@@ -1,6 +1,6 @@
-// Differentiable transformer encoder for Hopper (sm_90a), exact f32: a
-// forward that stashes what the backward reads, a reverse kernel, and a
-// reduction of the weight gradients.
+// Differentiable transformer encoder for Hopper (sm_90a), f32: a forward
+// that stashes what the backward reads, a reverse kernel, and a reduction
+// of the weight gradients.
 //
 // Replaces the TPU Pallas kernels of
 //   longterm360fov_tpu/ops/transformer_encode_train.py::fused_encode_train
@@ -17,46 +17,56 @@
 // What bounds it on the card (transformer-30: L = 2, T = 30, H = 128, at
 // B = 4096, 122,880 token rows):
 //   * Operations. The forward is 12·H² MACs a token-layer for the products
-//     and 2·T·H for the attention: 24.6 MFLOP a viewer, 0.10 TFLOP, 1.5 ms
-//     at the 67 TFLOP/s f32 FMA peak. The reverse recomputes LN2 and the
-//     MLP's first product and does the two transposed products a weight
-//     (the input gradient and the weight gradient): 28·H² MACs a
-//     token-layer plus twice the attention, 0.24 TFLOP, 3.5 ms.
+//     and 2·T·H for the attention: 0.097 TFLOP of products, f32-accurate on
+//     the tensor cores as three-pass TF32, 0.59 ms at 495 / 3 TFLOP/s (1.5
+//     ms on the FMA units at 67). The reverse needs the two transposed
+//     products of each (the input gradient and the weight gradient): 24·H²
+//     MACs a token-layer, 0.193 TFLOP, 1.17 ms (3.0 on the FMA units), and
+//     twice the attention's FMA work beside them. It also recomputes LN1,
+//     LN2 and the MLP's first product from the stash.
 //   * Bytes. The stash is 6·L·T·H f32 a viewer, 755 MB at B = 4096 (0.23
 //     ms each way); the weight-gradient partials below are 1.58 MB a block,
-//     3.2 GB over 2,048 blocks, written once and read once by the reduction
-//     (1.9 ms in all). Both kernels are bound by operations; the partials
-//     are the design's largest byte cost.
+//     3.24 GB over 2,048 blocks, written once and read once by the
+//     reduction (0.97 ms each way). The reverse's inputs and outputs take
+//     1.21 ms: with its products on the tensor cores, bytes bound it.
 // What the design does about it:
 //   * A block holds 64 token rows, the T tokens of 64 / T viewers (R = 2 at
-//     T = 30), as the serving encoder does: every product is gemm64 or
-//     gemm_tn below, one operand element from shared memory or L2 feeding
-//     64 FMAs. The reverse keeps six (64, H) buffers in shared memory (the
-//     gradient of the residual stream and five working buffers, 214 KB in
-//     all with the ring and the softmax statistics), walks the MLP's 4H
-//     hidden columns 128 at a time so that its pre-activation never needs a
-//     (64, 4H) buffer, and recomputes LN1, LN2 and the MLP's first product
-//     from the stash rather than storing them.
-//   * The attention backward is a warp a row in two passes: a query row's
-//     softmax statistics and dq, then a key row's dk and dv, written over
-//     the key and value it read (only its warp reads them in that pass).
-//     D_i = Σ_j p_ij dp_ij comes as g_att_i · att_i from the stashed output.
-//   * Each block writes its partial weight gradients (every Wᵀ-side product
-//     over its 64 rows, the bias and LN column sums) to its own slot; the
-//     reduction kernel adds the slots in block order. No float atomics:
-//     two runs give the same bits.
-// Later work (not here): larger row tiles or a split-K dW pass to shrink
-// the partials, the products on the tensor cores (TF32 is not exact f32).
+//     T = 30), as the serving encoder does. Every matrix product is
+//     three-pass TF32 on mma.sync (transformer_f32mma.cuh): the forward is
+//     the serving tier's body with the stash written on the way; the
+//     reverse's input-gradient products read W itself (W1ᵀ for the
+//     recomputed pre-activation) through the same weight stream, in chunks
+//     of 16 k-columns (the reverse keeps five activation buffers), and its
+//     weight gradients Xᵀ · Y over the block's rows are dw_product, whose
+//     operands are strided in k and load with scalar loads.
+//   * The reverse keeps G, the gradient of the residual stream, and four
+//     (64, H) buffers in shared memory, walks the MLP's 4H hidden columns 128
+//     at a time (gelu and the gradient of the pre-activation written out),
+//     and recomputes LN1, LN2 and the MLP's first product from the stash
+//     rather than storing them.
+//   * The attention backward is a thread a (row, head), 32 dims in
+//     registers, no shuffles: as a query row, its softmax statistics and dq
+//     (an online softmax, held in registers), then as a key row, dk and dv,
+//     written over the key and value it read. D_i = Σ_j p_ij dp_ij comes
+//     as g_att_i · att_i from the stashed output.
+//   * Each block writes its partial weight gradients (every product's, the
+//     bias and LN column sums) to its own slot; the reduction kernel adds the
+//     slots in block order. No float atomics: two runs give the same bits.
+// What is left: the 3.24 GB of partials, about as long as the reverse's
+// products take on the tensor cores, would shrink under a split-K dW pass
+// that sums the blocks' Xᵀ · Y over many row tiles before it writes them;
+// wgmma needs both TF32 operands k-major in shared memory, which Xᵀ · Y's
+// operands (k over the rows) are not without a transpose.
 
-#include "transformer_encode.cuh"
+#include "transformer_f32mma.cuh"
 
 namespace {
 
 using namespace tfm;
 
-// the transposed weights the reverse reads a layer: Wqᵀ, Wkᵀ, Wvᵀ, Woᵀ
-// (H, H), W1ᵀ (4H, H), W2ᵀ (H, 4H)
-enum EncTPtr { WQT, WKT, WVT, WOT, W1T, W2T, ENC_T_PTRS };
+// the transposed weights the reverse reads a layer: W1ᵀ (4H, H), for the
+// recomputed pre-activation (its other products read W itself)
+enum EncTPtr { W1T, ENC_T_PTRS };
 
 // a block's partial gradients of one layer, at these float offsets
 constexpr int G_WQ = 0, G_WK = H * H, G_WV = 2 * H * H, G_WO = 3 * H * H;
@@ -68,9 +78,11 @@ constexpr int G_LN1_S = G_B2 + H, G_LN1_B = G_LN1_S + H, G_LN2_S = G_LN1_B + H, 
 constexpr int LAYER_GRAD = G_LN2_B + H;  // 197,760 floats
 // then the input projection's (d, H) after the layers
 
-constexpr int RB_BUFS = 6;                     // G and five working buffers, (ROWS, LDX) each
-constexpr int STATS = 3 * ROWS * HEADS;       // softmax max, sum, and D a row and head
-constexpr int RB_SMEM_FLOATS = RB_BUFS * ROWS * LDX + WS_FLOATS + STATS;
+constexpr int RKC = 16;                   // the reverse's chunk depth
+constexpr int RB_BUFS = 5;                // G and four working buffers, (ROWS, LDX) each
+constexpr int STATS = 3 * ROWS * HEADS;   // softmax max, sum, and D a row and head
+constexpr int RB_SMEM_FLOATS = RB_BUFS * ROWS * LDX + Ring<RKC>::FLOATS + STATS;
+static_assert(RB_SMEM_FLOATS * 4 <= 232448, "a block may have 227 KB of shared memory");
 
 struct EncGradParams {
   const float* layer[MAX_LAYERS][ENC_PTRS];
@@ -82,7 +94,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 encode_stash_kernel(const EncParams p, const float* __restrict__ past, float* __restrict__ enc,
                     float* __restrict__ stash, int batch, int layers, int t, int d, int seqs) {
   extern __shared__ float4 smem4[];
-  encode_rows<true>(p, past, enc, stash, batch, layers, t, d, seqs, reinterpret_cast<float*>(smem4));
+  encode_rows_tf32<true>(p, past, enc, stash, batch, layers, t, d, seqs, reinterpret_cast<float*>(smem4));
 }
 
 // jax.nn.gelu's tanh form, differentiated
@@ -92,68 +104,34 @@ __device__ __forceinline__ float dgelu_tanh(float x) {
   return 0.5f * (1.0f + th) + 0.5f * x * (1.0f - th * th) * c * (1.0f + 3.0f * a * (x * x));
 }
 
-// out[i][j] = Σ_m X[m][i0 + i] · Y[m][j] over the block's 64 rows, for i
-// in [0, 64) and j in [0, 128): X and Y (ROWS, LDX) in shared memory.
-// Thread (rg, cg) sums rows 4·rg..+3 x columns 8·cg..+7 over m in order
-// and hands them to epi(r0, c0, acc) with r0 relative to i0. Reads only:
-// the caller synchronizes around it.
-template <typename Epi>
-__device__ __forceinline__ void gemm_tn(const float* X, int i0, const float* Y, Epi epi) {
-  const int r0 = (threadIdx.x >> 4) * 4;
-  const int c0 = (threadIdx.x & 15) * 8;
-  float acc[4][8];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-#pragma unroll 4
-  for (int m = 0; m < ROWS; ++m) {
-    const float4 a = *reinterpret_cast<const float4*>(X + m * LDX + i0 + r0);
-    const float4 y0 = *reinterpret_cast<const float4*>(Y + m * LDX + c0);
-    const float4 y1 = *reinterpret_cast<const float4*>(Y + m * LDX + c0 + 4);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], yv[c], acc[r][c]);
-  }
-  epi(r0, c0, acc);
-}
-
-// dW[i0 + i][j0 + j] (row stride ldo, in device memory) = (Xᵀ · Y) for
-// all 128 rows i of X's columns: two gemm_tn halves
-__device__ __forceinline__ void weight_grad(const float* X, const float* Y, float* __restrict__ dw,
-                                            int ldo, int j0) {
-  for (int i0 = 0; i0 < H; i0 += ROWS)
-    gemm_tn(X, i0, Y, [=](int r0, int c0, const float (&acc)[4][8]) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float* o = dw + (size_t)(i0 + r0 + r) * ldo + j0 + c0;
-        *reinterpret_cast<float4*>(o) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-        *reinterpret_cast<float4*>(o + 4) = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-      }
-    });
-}
-
 // out[j] = Σ_m Y[m][j] over the block's 64 rows, in order
 __device__ __forceinline__ void col_sum(const float* Y, float* __restrict__ out) {
-  if (threadIdx.x < H) {
-    float s = 0.f;
-    for (int m = 0; m < ROWS; ++m) s += Y[m * LDX + threadIdx.x];
-    out[threadIdx.x] = s;
+  if (threadIdx.x < H) {  // four sums side by side, rows m % 4, then added in a fixed order
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int m = 0; m < ROWS; m += 4)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s[k] += Y[(m + k) * LDX + threadIdx.x];
+    out[threadIdx.x] = (s[0] + s[1]) + (s[2] + s[3]);
   }
 }
 
 // rows m < n_tok of an (n_tokens, H) array into a (ROWS, LDX) buffer, the
-// other rows 0: a warp a row
+// other rows 0: a warp a row, a warp's 8 rows' loads in flight together
 __device__ __forceinline__ void rows_in(float* dst, const float* __restrict__ src, size_t tok0,
                                         int n_tok) {
   const int lane = threadIdx.x & 31;
-  for (int m = threadIdx.x >> 5; m < ROWS; m += THREADS / 32)
-    *reinterpret_cast<float4*>(dst + m * LDX + 4 * lane) =
-        m < n_tok ? __ldg(reinterpret_cast<const float4*>(src + (tok0 + m) * H) + lane)
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  constexpr int R = ROWS / (THREADS / 32);
+  float4 v[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int m = (threadIdx.x >> 5) + i * (THREADS / 32);
+    v[i] = m < n_tok ? __ldg(reinterpret_cast<const float4*>(src + (tok0 + m) * H) + lane)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    *reinterpret_cast<float4*>(dst + ((threadIdx.x >> 5) + i * (THREADS / 32)) * LDX + 4 * lane) = v[i];
 }
 
 // The LN backward of y = (x - mu) · rstd · scale + bias for every row (a
@@ -164,7 +142,9 @@ __device__ __forceinline__ void ln_backward(float* X, const float* GY, const flo
                                             float* G) {
   const int lane = threadIdx.x & 31;
   const float4 s = __ldg(reinterpret_cast<const float4*>(scale) + lane);
-  for (int r = threadIdx.x >> 5; r < ROWS; r += THREADS / 32) {
+#pragma unroll
+  for (int i = 0; i < ROWS / (THREADS / 32); ++i) {  // a warp's rows at once: their reductions interleave
+    const int r = (threadIdx.x >> 5) + i * (THREADS / 32);
     float4* xp = reinterpret_cast<float4*>(X + r * LDX) + lane;
     const float4 x = *xp;
     const float4 gy = *(reinterpret_cast<const float4*>(GY + r * LDX) + lane);
@@ -187,28 +167,52 @@ __device__ __forceinline__ void ln_backward(float* X, const float* GY, const flo
   }
 }
 
-// a head's dot product of the lane's dims (lanes 8n..8n+7 hold head n),
-// in every lane of the head
-__device__ __forceinline__ float head_dot(float4 a, float4 b) {
-  float s = (a.x * b.x + a.y * b.y) + (a.z * b.z + a.w * b.w);
-  s += __shfl_xor_sync(FULL, s, 4);
-  s += __shfl_xor_sync(FULL, s, 2);
-  s += __shfl_xor_sync(FULL, s, 1);
-  return s;
-}
-
 __device__ __forceinline__ float4 row4(const float* buf, int m) {
   return *(reinterpret_cast<const float4*>(buf + m * LDX) + (threadIdx.x & 31));
 }
 
-__device__ __forceinline__ void set_row4(float* buf, int m, float4 v) {
-  *(reinterpret_cast<float4*>(buf + m * LDX) + (threadIdx.x & 31)) = v;
-}
+// The reverse's blocks of Bᵀ, a layer's (last layer first) in the order
+// its products read them: for each 128-column slab c of the MLP's hidden
+// layer, W1ᵀ's rows 128·c.. (the recomputed pre-activation), W2's rows
+// 128·c.. (its gradient, G · W2[c]ᵀ) and W1's columns 128·c.. (the
+// gradient of LN2's output); then Wo, Wq, Wk, Wv (G · Woᵀ and the gradient
+// of LN1's output)
+constexpr int REV_BLOCKS = 3 * (MLP / H) + 4;
 
-__device__ __forceinline__ float4 fma4(float a, float4 x, float4 acc) {
-  return make_float4(fmaf(a, x.x, acc.x), fmaf(a, x.y, acc.y), fmaf(a, x.z, acc.z), fmaf(a, x.w, acc.w));
-}
+struct RevSrc {
+  const EncGradParams* p;
+  int layers;
+  __device__ __forceinline__ const float* operator()(int b, int& ld) const {
+    const int l = layers - 1 - b / REV_BLOCKS, j = b % REV_BLOCKS;
+    const float* const* w = p->layer[l];
+    ld = H;
+    if (j < 3 * (MLP / H)) {
+      const int c = j / 3;
+      if (j % 3 == 0) return p->layer_t[l][W1T] + (size_t)c * H * H;
+      if (j % 3 == 1) return w[W2] + (size_t)c * H * H;
+      ld = MLP;
+      return w[W1] + c * H;
+    }
+    return w[j == 3 * (MLP / H) ? WO : j == 3 * (MLP / H) + 1 ? WQ : j == 3 * (MLP / H) + 2 ? WK : WV];
+  }
+};
 
+// The reverse of one block of 64 token rows, layer by layer from the last,
+// on three-pass TF32 products (transformer_f32mma.cuh). Shared memory: G,
+// the gradient of the residual stream, and four (64, LDX) buffers R1-R4;
+// the ring of the weight stream; the softmax statistics. A layer:
+//   MLP (G = dL/dx2): R2 = m_in = LN2(x1); a slab c at a time, R1 = pre =
+//   m_in · W1[:, c] + b1, then G · W2[c]ᵀ in registers, R1 = gelu(pre), R3 =
+//   gpre = (G · W2[c]ᵀ) ⊙ gelu'(pre); dW2[c] = R1ᵀ · G, dW1[:, c] =
+//   m_inᵀ · R3, db1[c]; R4 (+)= R3 · W1[:, c]ᵀ; then LN2's backward from x1
+//   (read again) and R4 into G.
+//   attention (G = dL/dx1): R1 = att, dWo = R1ᵀ · G, R2 = g_att = G · Woᵀ,
+//   D; R1, R3, R4 = q, k, v; a thread a (row, head): as a query row, its
+//   softmax statistics and dq (in registers), then as a key row, dk and dv
+//   over its k and v; dq over q; R2 = LN1(x0)
+//   (in place); dWq, dWk, dWv = R2ᵀ · dq, dk, dv; R2 = dq · Wqᵀ + dk · Wkᵀ
+//   + dv · Wvᵀ (one register sum); LN1's backward from x0 (read again) into G.
+// Every partial gradient goes to the block's slot of `partials`.
 __global__ void __launch_bounds__(THREADS, 1)
 encode_reverse_kernel(const EncGradParams p, const float* __restrict__ past,
                       const float* __restrict__ stash, const float* __restrict__ g_enc,
@@ -220,165 +224,259 @@ encode_reverse_kernel(const EncGradParams p, const float* __restrict__ past,
   float* R2 = R1 + ROWS * LDX;
   float* R3 = R2 + ROWS * LDX;
   float* R4 = R3 + ROWS * LDX;
-  float* R5 = R4 + ROWS * LDX;
-  float* ws = R5 + ROWS * LDX;  // gemm64's ring
-  float* st_m = ws + WS_FLOATS;  // (ROWS, HEADS) softmax max, sum, and D
+  float* ring = R4 + ROWS * LDX;
+  float* st_m = ring + Ring<RKC>::FLOATS;  // (ROWS, HEADS) softmax max, sum, and D
   float* st_l = st_m + ROWS * HEADS;
   float* st_d = st_l + ROWS * HEADS;
   const int b0 = blockIdx.x * seqs;
   const int n_tok = min(seqs, batch - b0) * t;
   const size_t tok0 = (size_t)b0 * t;
   const size_t n_tokens = (size_t)batch * t;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, head = lane >> 3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* part = partials + (size_t)blockIdx.x * ((size_t)layers * LAYER_GRAD + d * H);
   auto stash_of = [=](int l, int s) { return stash + ((size_t)l * STASH + s) * n_tokens * H; };
-  auto store_to = [](float* dst) {
-    return [dst](int r0, int c0, const float (&acc)[4][8]) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float* o = dst + (r0 + r) * LDX + c0;
-        *reinterpret_cast<float4*>(o) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-        *reinterpret_cast<float4*>(o + 4) = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-      }
+  Tf32Stream<RKC, RevSrc> st;
+  st.src = RevSrc{&p, layers};
+  st.total = layers * REV_BLOCKS * Ring<RKC>::CHUNKS;
+  st.ring = ring;
+  Probe pr;
+  // a dW tile into the partials: dw + i · ldo + j (device memory)
+  auto dw_to = [](float* dw, int ldo) {
+    return [dw, ldo](int i, int j, float v0, float v1) {
+      *reinterpret_cast<float2*>(dw + (size_t)i * ldo + j) = make_float2(v0, v1);
     };
   };
-  auto add_to = [](float* dst) {
-    return [dst](int r0, int c0, const float (&acc)[4][8]) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) dst[(r0 + r) * LDX + c0 + c] += acc[r][c];
+  auto store_to = [](float* dst) {
+    return [dst](int r, int c, float v0, float v1) {
+      *reinterpret_cast<float2*>(dst + r * LDX + c) = make_float2(v0, v1);
     };
   };
 
+  st.start();
   rows_in(G, g_enc, tok0, n_tok);
-  __syncthreads();
+  pr.mark(P_STASH);
+  sync_probe(pr);
+  Tile s1;
   for (int l = layers - 1; l >= 0; --l) {
     const float* const* w = p.layer[l];
-    const float* const* wt = p.layer_t[l];
     float* gp = part + (size_t)l * LAYER_GRAD;
 
     // ---- MLP: x2 = x1 + gelu(LN2(x1) · W1 + b1) · W2 + b2; G = dL/dx2
     rows_in(R1, stash_of(l, ST_X1), tok0, n_tok);  // R1 = x1
-    __syncthreads();
-    layer_norm(R1, R2, w[LN2_S], w[LN2_B]);  // R2 = m_in
+    pr.mark(P_STASH);
+    sync_probe(pr);
+    layer_norm_rows(R1, R2, w[LN2_S], w[LN2_B]);  // R2 = m_in
+    pr.mark(P_LN);
     col_sum(G, gp + G_B2);
-    __syncthreads();
+    pr.mark(P_PARTW);
     const float* b1 = w[B1];
     for (int c = 0; c < MLP / H; ++c) {
-      const int n0 = c * H;
-      // pre = m_in · W1[:, n0:+128] + b1: R3 = gelu'(pre), R4 = gelu(pre)
-      gemm64(R2, LDX, H, w[W1], MLP, n0, ws, [=](int r0, int c0, const float (&acc)[4][8]) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int cc = 0; cc < 8; ++cc) {
-            const float x = acc[r][cc] + __ldg(b1 + c0 + cc);
-            R3[(r0 + r) * LDX + c0 - n0 + cc] = dgelu_tanh(x);
-            R4[(r0 + r) * LDX + c0 - n0 + cc] = gelu_tanh(x);
-          }
+      zero_tile(s1);
+      product(R2, st, s1, pr);  // R1 = pre = m_in · W1[:, c] + b1
+      tile_out(s1, c * H, [=](int r, int col, float v0, float v1) {
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + col));
+        *reinterpret_cast<float2*>(R1 + r * LDX + col - c * H) = make_float2(v0 + bb.x, v1 + bb.y);
       });
-      __syncthreads();
-      weight_grad(R4, G, gp + G_W2 + (size_t)n0 * H, H, 0);  // dW2[n0:+128, :] = gelu(pre)ᵀ · G
-      // R3 = (G · W2[n0:+128, :]ᵀ) ⊙ gelu'(pre), the pre-activation's gradient
-      gemm64(G, LDX, H, wt[W2T], MLP, n0, ws, [=](int r0, int c0, const float (&acc)[4][8]) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int cc = 0; cc < 8; ++cc) R3[(r0 + r) * LDX + c0 - n0 + cc] *= acc[r][cc];
+      zero_tile(s1);
+      product(G, st, s1, pr);   // G · W2[c]ᵀ; the same thread wrote pre at these positions
+      tile_out(s1, 0, [=](int r, int col, float g0, float g1) {
+        float2* x = reinterpret_cast<float2*>(R1 + r * LDX + col);
+        const float2 pre = *x;
+        *x = make_float2(gelu_tanh(pre.x), gelu_tanh(pre.y));
+        *reinterpret_cast<float2*>(R3 + r * LDX + col) = make_float2(g0 * dgelu_tanh(pre.x), g1 * dgelu_tanh(pre.y));
       });
-      __syncthreads();
-      weight_grad(R2, R3, gp + G_W1, MLP, n0);  // dW1[:, n0:+128] = m_inᵀ · gpre
-      col_sum(R3, gp + G_B1 + n0);
-      // R5 (+)= gpre · W1[:, n0:+128]ᵀ, the gradient of m_in
-      if (c == 0)
-        gemm64(R3, LDX, H, wt[W1T] + (size_t)n0 * H, H, 0, ws, store_to(R5));
-      else
-        gemm64(R3, LDX, H, wt[W1T] + (size_t)n0 * H, H, 0, ws, add_to(R5));
-      __syncthreads();
+      pr.mark(P_GELU);
+      sync_probe(pr);
+      dw_product(R1, G, pr, dw_to(gp + G_W2 + (size_t)c * H * H, H));  // dW2[c] = gelu(pre)ᵀ · G
+      dw_product(R2, R3, pr, dw_to(gp + G_W1 + c * H, MLP));           // dW1[:, c] = m_inᵀ · gpre
+      col_sum(R3, gp + G_B1 + c * H);
+      pr.mark(P_PARTW);
+      zero_tile(s1);
+      product(R3, st, s1, pr);  // gpre · W1[:, c]ᵀ, the gradient of m_in
+      tile_out(s1, 0, [=](int r, int col, float v0, float v1) {
+        float2* o = reinterpret_cast<float2*>(R4 + r * LDX + col);
+        *o = c == 0 ? make_float2(v0, v1) : make_float2(o->x + v0, o->y + v1);
+      });
+      pr.mark(P_EPI);
     }
-    ln_backward(R1, R5, w[LN2_S], G);  // G = dL/dx1; R1 = gy ⊙ xhat
-    __syncthreads();
+    sync_probe(pr);
+    rows_in(R1, stash_of(l, ST_X1), tok0, n_tok);  // R1 = x1 again
+    pr.mark(P_STASH);
+    sync_probe(pr);
+    ln_backward(R1, R4, w[LN2_S], G);  // G = dL/dx1; R1 = gy ⊙ xhat
+    pr.mark(P_LN);
+    sync_probe(pr);
     col_sum(R1, gp + G_LN2_S);
-    col_sum(R5, gp + G_LN2_B);
-    __syncthreads();
+    col_sum(R4, gp + G_LN2_B);
+    pr.mark(P_PARTW);
+    sync_probe(pr);
 
     // ---- attention: x1 = x0 + att · Wo; G = dL/dx1
     rows_in(R1, stash_of(l, ST_ATT), tok0, n_tok);  // R1 = att
-    __syncthreads();
-    weight_grad(R1, G, gp + G_WO, H, 0);  // dWo = attᵀ · G
-    gemm64(G, LDX, H, wt[WOT], H, 0, ws, store_to(R2));  // R2 = g_att
-    __syncthreads();
-    for (int m = warp; m < ROWS; m += THREADS / 32) {  // D = g_att · att a head
-      const float s = head_dot(row4(R2, m), row4(R1, m));
-      if ((lane & 7) == 0) st_d[m * HEADS + head] = s;
+    pr.mark(P_STASH);
+    sync_probe(pr);
+    dw_product(R1, G, pr, dw_to(gp + G_WO, H));  // dWo = attᵀ · G
+    zero_tile(s1);
+    product(G, st, s1, pr);
+    tile_out(s1, 0, store_to(R2));  // R2 = g_att
+    pr.mark(P_EPI);
+    sync_probe(pr);
+    // thread (row i, head) = (tid % 64, tid / 64): the head's 32 dims of
+    // row i in registers, no shuffles. D_i = g_att_i · att_i
+    const int ai = threadIdx.x % ROWS, ah = threadIdx.x / ROWS, acol = ah * (H / HEADS);
+    auto load32 = [acol](const float* buf, int row, float (&x)[H / HEADS]) {
+#pragma unroll
+      for (int c = 0; c < H / HEADS; c += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(buf + row * LDX + acol + c);
+        x[c] = v.x, x[c + 1] = v.y, x[c + 2] = v.z, x[c + 3] = v.w;
+      }
+    };
+    auto store32 = [acol](float* buf, int row, const float (&x)[H / HEADS], float scale) {
+#pragma unroll
+      for (int c = 0; c < H / HEADS; c += 4)
+        *reinterpret_cast<float4*>(buf + row * LDX + acol + c) =
+            make_float4(x[c] * scale, x[c + 1] * scale, x[c + 2] * scale, x[c + 3] * scale);
+    };
+    auto dot32 = [acol](const float (&x)[H / HEADS], const float* buf, int row) {
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < H / HEADS; c += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(buf + row * LDX + acol + c);
+        s4[0] = fmaf(x[c], v.x, s4[0]);
+        s4[1] = fmaf(x[c + 1], v.y, s4[1]);
+        s4[2] = fmaf(x[c + 2], v.z, s4[2]);
+        s4[3] = fmaf(x[c + 3], v.w, s4[3]);
+      }
+      return (s4[0] + s4[1]) + (s4[2] + s4[3]);
+    };
+    {
+      float ga[H / HEADS];
+      load32(R2, ai, ga);
+      st_d[ai * HEADS + ah] = dot32(ga, R1, ai);
     }
-    __syncthreads();
+    pr.mark(P_ATT);
+    sync_probe(pr);
     rows_in(R1, stash_of(l, ST_Q), tok0, n_tok);  // R1 = q, R3 = k, R4 = v
     rows_in(R3, stash_of(l, ST_K), tok0, n_tok);
     rows_in(R4, stash_of(l, ST_V), tok0, n_tok);
-    __syncthreads();
-    // pass 1, a warp a query row i: its softmax statistics, then
-    // dq_i = scale · Σ_j p_ij (dp_ij - D_i) k_j with dp_ij = g_att_i · v_j → R5
-    for (int i = warp; i < ROWS; i += THREADS / 32) {
-      float4 gq = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < n_tok) {
-        const int first = (i / t) * t;
-        const float4 q = row4(R1, i), ga = row4(R2, i);
-        float mx = -INFINITY;
-        for (int j = first; j < first + t; ++j) mx = fmaxf(mx, head_dot(q, row4(R3, j)) * SCALE);
-        float sum = 0.f;
-        for (int j = first; j < first + t; ++j) sum += expf(head_dot(q, row4(R3, j)) * SCALE - mx);
-        const float dd = st_d[i * HEADS + head];
-        for (int j = first; j < first + t; ++j) {
-          const float4 k = row4(R3, j);
-          const float pr = expf(head_dot(q, k) * SCALE - mx) / sum;
-          gq = fma4(pr * (head_dot(ga, row4(R4, j)) - dd), k, gq);
+    pr.mark(P_STASH);
+    sync_probe(pr);
+    // the viewer's rows; none for a row past the valid ones, whose
+    // gradients are 0
+    const int first = (ai / t) * t, last = ai < n_tok ? first + t : first;
+    // query row i: an online softmax over its viewer's keys j (m the running
+    // max of the logits, l the sum of exp(logit - m)) and
+    // dq_i = scale · Σ_j p_ij (dp_ij - D_i) k_j, dp_ij = g_att_i · v_j,
+    // held in registers until k and v are no longer read
+    float dq[H / HEADS];
+    {
+      float q[H / HEADS], ga[H / HEADS];
+      load32(R1, ai, q);
+      load32(R2, ai, ga);
+      const float dd = st_d[ai * HEADS + ah];
+      float mx = -INFINITY, sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < H / HEADS; ++c) dq[c] = 0.f;
+      for (int j = first; j < last; ++j) {
+        const float s = dot32(q, R3, j) * SCALE;
+        const float gp_ij = dot32(ga, R4, j) - dd;
+        const float mn = fmaxf(mx, s);
+        const float corr = expf(mx - mn);  // 0 for the first key (mx = -inf)
+        const float e = expf(s - mn);
+        sum = sum * corr + e;
+        const float* kr = R3 + j * LDX + acol;
+#pragma unroll
+        for (int c = 0; c < H / HEADS; c += 4) {
+          const float4 k = *reinterpret_cast<const float4*>(kr + c);
+          dq[c] = fmaf(e * gp_ij, k.x, dq[c] * corr);
+          dq[c + 1] = fmaf(e * gp_ij, k.y, dq[c + 1] * corr);
+          dq[c + 2] = fmaf(e * gp_ij, k.z, dq[c + 2] * corr);
+          dq[c + 3] = fmaf(e * gp_ij, k.w, dq[c + 3] * corr);
         }
-        gq = make_float4(gq.x * SCALE, gq.y * SCALE, gq.z * SCALE, gq.w * SCALE);
-        if ((lane & 7) == 0) {
-          st_m[i * HEADS + head] = mx;
-          st_l[i * HEADS + head] = sum;
+        mx = mn;
+      }
+      const float f = ai < n_tok ? SCALE / sum : 0.f;
+#pragma unroll
+      for (int c = 0; c < H / HEADS; ++c) dq[c] *= f;
+      st_m[ai * HEADS + ah] = mx;
+      st_l[ai * HEADS + ah] = sum;
+    }
+    pr.mark(P_ATT);
+    sync_probe(pr);
+    {  // key row j = ai, over the k_j and v_j it read (only its thread reads
+       // them in this pass): dk_j = scale · Σ_i p_ij (dp_ij - D_i) q_i with
+       // dp_ij = g_att_i · v_j, then dv_j = Σ_i p_ij g_att_i, p_ij computed
+       // again, so that k_j, v_j, dk_j and dv_j are not held at once beside dq
+      float k[H / HEADS];
+      load32(R3, ai, k);
+      auto p_of = [&](int i) {
+        const int si = i * HEADS + ah;
+        return expf(dot32(k, R1, i) * SCALE - st_m[si]) / st_l[si];
+      };
+      {
+        float v[H / HEADS], dk[H / HEADS];
+        load32(R4, ai, v);
+#pragma unroll
+        for (int c = 0; c < H / HEADS; ++c) dk[c] = 0.f;
+        for (int i = first; i < last; ++i) {
+          const float w_ij = p_of(i) * (dot32(v, R2, i) - st_d[i * HEADS + ah]);
+          const float* qr = R1 + i * LDX + acol;
+#pragma unroll
+          for (int c = 0; c < H / HEADS; c += 4) {
+            const float4 q = *reinterpret_cast<const float4*>(qr + c);
+            dk[c] = fmaf(w_ij, q.x, dk[c]);
+            dk[c + 1] = fmaf(w_ij, q.y, dk[c + 1]);
+            dk[c + 2] = fmaf(w_ij, q.z, dk[c + 2]);
+            dk[c + 3] = fmaf(w_ij, q.w, dk[c + 3]);
+          }
+        }
+        store32(R3, ai, dk, SCALE);
+      }
+      float dv[H / HEADS];
+#pragma unroll
+      for (int c = 0; c < H / HEADS; ++c) dv[c] = 0.f;
+      for (int i = first; i < last; ++i) {
+        const float p_ij = p_of(i);
+        const float* gr = R2 + i * LDX + acol;
+#pragma unroll
+        for (int c = 0; c < H / HEADS; c += 4) {
+          const float4 g = *reinterpret_cast<const float4*>(gr + c);
+          dv[c] = fmaf(p_ij, g.x, dv[c]);
+          dv[c + 1] = fmaf(p_ij, g.y, dv[c + 1]);
+          dv[c + 2] = fmaf(p_ij, g.z, dv[c + 2]);
+          dv[c + 3] = fmaf(p_ij, g.w, dv[c + 3]);
         }
       }
-      set_row4(R5, i, gq);
+      store32(R4, ai, dv, 1.f);
     }
-    __syncthreads();
-    // pass 2, a warp a key row j: dk_j = scale · Σ_i p_ij (dp_ij - D_i) q_i
-    // and dv_j = Σ_i p_ij g_att_i, over the k_j and v_j it read (R3, R4)
-    for (int j = warp; j < n_tok; j += THREADS / 32) {
-      const int first = (j / t) * t;
-      const float4 k = row4(R3, j), v = row4(R4, j);
-      float4 gk = make_float4(0.f, 0.f, 0.f, 0.f), gv = gk;
-      for (int i = first; i < first + t; ++i) {
-        const float4 q = row4(R1, i), ga = row4(R2, i);
-        const int s = i * HEADS + head;
-        const float pr = expf(head_dot(q, k) * SCALE - st_m[s]) / st_l[s];
-        gv = fma4(pr, ga, gv);
-        gk = fma4(pr * (head_dot(ga, v) - st_d[s]), q, gk);
-      }
-      set_row4(R3, j, make_float4(gk.x * SCALE, gk.y * SCALE, gk.z * SCALE, gk.w * SCALE));
-      set_row4(R4, j, gv);
-    }
-    __syncthreads();
-    rows_in(R1, stash_of(l, ST_X0), tok0, n_tok);  // R1 = x0
-    __syncthreads();
-    layer_norm(R1, R2, w[LN1_S], w[LN1_B]);  // R2 = h_in
-    __syncthreads();
-    weight_grad(R2, R5, gp + G_WQ, H, 0);  // dWq, dWk, dWv = h_inᵀ · dq, dk, dv
-    weight_grad(R2, R3, gp + G_WK, H, 0);
-    weight_grad(R2, R4, gp + G_WV, H, 0);
-    // R2 = dq · Wqᵀ + dk · Wkᵀ + dv · Wvᵀ, the gradient of h_in (gemm64
-    // synchronizes before its epilogue: every thread is done with h_in)
-    gemm64(R5, LDX, H, wt[WQT], H, 0, ws, store_to(R2));
-    gemm64(R3, LDX, H, wt[WKT], H, 0, ws, add_to(R2));
-    gemm64(R4, LDX, H, wt[WVT], H, 0, ws, add_to(R2));
-    __syncthreads();
+    pr.mark(P_ATT);
+    sync_probe(pr);
+    store32(R1, ai, dq, 1.f);  // R1 = dq
+    rows_in(R2, stash_of(l, ST_X0), tok0, n_tok);  // R2 = x0
+    pr.mark(P_STASH);
+    sync_probe(pr);
+    layer_norm_rows(R2, R2, w[LN1_S], w[LN1_B]);  // R2 = h_in, in place
+    pr.mark(P_LN);
+    sync_probe(pr);
+    dw_product(R2, R1, pr, dw_to(gp + G_WQ, H));  // dWq, dWk, dWv = h_inᵀ · dq, dk, dv
+    dw_product(R2, R3, pr, dw_to(gp + G_WK, H));
+    dw_product(R2, R4, pr, dw_to(gp + G_WV, H));
+    zero_tile(s1);  // dq · Wqᵀ + dk · Wkᵀ + dv · Wvᵀ, the gradient of h_in
+    product(R1, st, s1, pr);
+    product(R3, st, s1, pr);
+    product(R4, st, s1, pr);
+    sync_probe(pr);  // every warp is done with h_in and dq
+    tile_out(s1, 0, store_to(R2));
+    rows_in(R1, stash_of(l, ST_X0), tok0, n_tok);  // R1 = x0 again
+    pr.mark(P_STASH);
+    sync_probe(pr);
     ln_backward(R1, R2, w[LN1_S], G);  // G = dL/dx0; R1 = gy ⊙ xhat
-    __syncthreads();
+    pr.mark(P_LN);
+    sync_probe(pr);
     col_sum(R1, gp + G_LN1_S);
     col_sum(R2, gp + G_LN1_B);
-    __syncthreads();
+    pr.mark(P_PARTW);
+    sync_probe(pr);
   }
   // G = dL/d(past · in_proj + pos): d_in_proj = pastᵀ · G, d_x = G · in_projᵀ
   float* gin = part + (size_t)layers * LAYER_GRAD;
@@ -398,6 +496,7 @@ encode_reverse_kernel(const EncGradParams p, const float* __restrict__ past,
       }
     }
   }
+  pr.mark(P_OUT);
 }
 
 // grads[e] = Σ_b partials[b][e] over the blocks in order, four floats a
@@ -428,10 +527,11 @@ extern "C" {
 int transformer_encode_train_partial_floats(int layers, int d) { return layers * LAYER_GRAD + d * H; }
 
 // The forward with the stash: one launch on `stream`, grid ceil(batch /
-// (64 / t)) blocks of 256 threads, 210,944 bytes of dynamic shared memory.
+// (64 / t)) blocks of 256 threads, 208,896 bytes of dynamic shared memory.
 // past (batch, t, d), enc (batch, t, 128) and stash (layers, 6, batch · t,
-// 128) f32; layer_ptrs holds 12 device pointers a layer in EncPtr's order;
-// pos (t, 128). Returns cudaGetLastError() (0 = ok), or
+// 128) f32; layer_ptrs holds 12 device pointers a layer in EncPtr's order,
+// the matrices' slots pointing at their transposes (Wqᵀ..Woᵀ, W1ᵀ (4H, H),
+// W2ᵀ (H, 4H), each row-major); pos (t, 128). Returns cudaGetLastError() (0 = ok), or
 // cudaErrorInvalidValue for a shape the kernel does not take.
 int transformer_encode_train_fwd_f32(const void* past, void* enc, void* stash, const void* const* layer_ptrs,
                                      const void* w_in, const void* pos, int batch, int layers, int t, int d,
@@ -442,7 +542,7 @@ int transformer_encode_train_fwd_f32(const void* past, void* enc, void* stash, c
     for (int i = 0; i < ENC_PTRS; ++i) p.layer[l][i] = static_cast<const float*>(layer_ptrs[l * ENC_PTRS + i]);
   p.w_in = static_cast<const float*>(w_in);
   p.pos = static_cast<const float*>(pos);
-  const size_t smem = SMEM_FLOATS * sizeof(float);
+  const size_t smem = F32_SMEM_FLOATS * sizeof(float);
   cudaError_t err =
       cudaFuncSetAttribute(encode_stash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -453,11 +553,12 @@ int transformer_encode_train_fwd_f32(const void* past, void* enc, void* stash, c
   return (int)cudaGetLastError();
 }
 
-// The reverse: one launch, the forward's grid, 214,016 bytes of dynamic
+// The reverse: one launch, the forward's grid, 212,992 bytes of dynamic
 // shared memory. g_enc (batch, t, 128) f32, the cotangent of enc; d_x
 // (batch, t, d) f32 or null; partials (blocks, partial_floats) f32, every
-// float written. layer_ptrs as the forward's; layer_t_ptrs 6 a layer in
-// EncTPtr's order. Returns as the forward.
+// float written. layer_ptrs holds 12 device pointers a layer in EncPtr's
+// order, the matrices as they are (W, row-major); layer_t_ptrs one a
+// layer, W1ᵀ (4H, H) row-major. Returns as the forward.
 int transformer_encode_train_bwd_f32(const void* past, const void* stash, const void* g_enc, void* d_x,
                                      void* partials, const void* const* layer_ptrs,
                                      const void* const* layer_t_ptrs, const void* w_in, int batch, int layers,
@@ -494,5 +595,17 @@ int transformer_encode_train_dw_f32(const void* partials, void* grads, int n, in
 const char* transformer_encode_train_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef TFM_PROBE
+// The probe build's clock counters (tfm::Part order, tfm::PARTS of them)
+// since the last read, summed over the blocks of both kernels, into out
+// (host memory); zeroes them. Returns cudaGetLastError()-style codes.
+int transformer_encode_train_probe_read(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, tfm::g_probe, sizeof(tfm::g_probe));
+  if (err != cudaSuccess) return (int)err;
+  static const unsigned long long zero[tfm::PARTS] = {};
+  return (int)cudaMemcpyToSymbol(tfm::g_probe, zero, sizeof(tfm::g_probe));
+}
+#endif
 
 }  // extern "C"

@@ -41,13 +41,14 @@
 // shuffle; an online softmax over the viewer's t key rows in shared memory,
 // two keys a step; the output, rounded to bf16, goes to hb.
 //
-// A probe build (-DTFM_PROBE) adds in-kernel clock64 counters: thread 0 of
-// every block adds the clocks it spends in each part (Part) to g_probe.
+// A probe build (-DTFM_PROBE) adds in-kernel clock64 counters
+// (transformer_probe.cuh).
 
 #pragma once
 
 #include "tensor_core.cuh"
 #include "transformer_encode.cuh"
+#include "transformer_probe.cuh"
 
 namespace tfm {
 
@@ -72,38 +73,6 @@ static_assert(MMA_SMEM_BYTES <= 232448, "a block may have 227 KB of shared memor
 static_assert(MMA_MAX_D * H <= ROWS * LDX, "past and in_proj fit over q and v");
 static_assert(MMA_WARPS == (ROWS / 16) * (H / 32), "a warp a 16 x 32 tile of a product");
 static_assert(MMA_THREADS == 2 * HEADS * ROWS, "two threads a (row, head) of the attention");
-
-// the parts of the probe build's time split
-enum Part { P_PRO, P_IN, P_LN, P_WAIT, P_MMA, P_EPI, P_GELU, P_ATT, P_BAR, P_OUT, PARTS };
-
-#ifdef TFM_PROBE
-__device__ unsigned long long g_probe[PARTS];
-__device__ __forceinline__ long long probe_clock() {
-#if defined(__CUDA_ARCH__)
-  return clock64();
-#else
-  return 0;
-#endif
-}
-struct Probe {
-  long long t;
-  __device__ Probe() : t(probe_clock()) {}
-  __device__ __forceinline__ void mark(int part) {
-    const long long now = probe_clock();
-    if (threadIdx.x == 0) atomicAdd(&g_probe[part], (unsigned long long)(now - t));
-    t = now;
-  }
-};
-#else
-struct Probe {
-  __device__ __forceinline__ void mark(int) {}
-};
-#endif
-
-__device__ __forceinline__ void sync_probe(Probe& pr) {
-  __syncthreads();
-  pr.mark(P_BAR);
-}
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

@@ -1,0 +1,59 @@
+// The probe build of the transformer encoder's kernels (-DTFM_PROBE):
+// in-kernel clock64 counters. Thread 0 of every block adds the clocks it
+// spends in each part of its work (Part) to g_probe; the library's
+// *_probe_read entry point copies the sums out and zeroes them. Without
+// TFM_PROBE a Probe is empty and its marks compile to nothing.
+
+#pragma once
+
+namespace tfm {
+
+// the parts of the probe build's time split
+enum Part {
+  P_PRO,    // prologue: staging past, pos and in_proj
+  P_IN,     // x = past · in_proj + pos
+  P_LN,     // layer norms (the reverse: recomputed LN1 and LN2, and their backward)
+  P_WAIT,   // the bf16 weight stream: waiting for a chunk (the f32 products stage
+            // theirs among their mma, in P_MMA)
+  P_MMA,    // the products' inner loops
+  P_EPI,    // the products' epilogues (q, k, v stores, residual adds, gradient stores)
+  P_GELU,   // b1 + GELU (the reverse: GELU and dGELU of the recomputed pre-activation)
+  P_ATT,    // the attention (the reverse: its backward)
+  P_BAR,    // block barriers
+  P_OUT,    // the output rows (the reverse: d_x and in_proj's gradient)
+  P_STASH,  // the forward's stash writes; the reverse's stash reads
+  P_DW,     // the reverse's weight-gradient products (X^T · Y over the block's rows)
+  P_PARTW,  // the reverse's partial-gradient writes (the dW tiles, bias and LN column sums)
+  PARTS
+};
+
+#ifdef TFM_PROBE
+__device__ unsigned long long g_probe[PARTS];
+__device__ __forceinline__ long long probe_clock() {
+#if defined(__CUDA_ARCH__)
+  return clock64();
+#else
+  return 0;
+#endif
+}
+struct Probe {
+  long long t;
+  __device__ Probe() : t(probe_clock()) {}
+  __device__ __forceinline__ void mark(int part) {
+    const long long now = probe_clock();
+    if (threadIdx.x == 0) atomicAdd(&g_probe[part], (unsigned long long)(now - t));
+    t = now;
+  }
+};
+#else
+struct Probe {
+  __device__ __forceinline__ void mark(int) {}
+};
+#endif
+
+__device__ __forceinline__ void sync_probe(Probe& pr) {
+  __syncthreads();
+  pr.mark(P_BAR);
+}
+
+}  // namespace tfm

@@ -11,13 +11,14 @@ tanh-GELU MLP) → ``enc_mem (B, T, H)`` f32.
   and summed in f32, as the JAX tier's.
 * :func:`fused_encode_tokens`, the wrapper: on CPU tensors it runs the plain
   version of the requested tier; on CUDA tensors it launches
-  ``csrc/transformer_encode.cu`` (the bf16 tier with in_proj and the layers'
-  matrices converted to bf16 for the call), whose header says what bounds
-  it and what its design does about that, or raises: on an input that
-  requires grad (the kernel has no backward; train through ``apply``'s
-  parallel pass, as JAX does; this one raises on the CPU too), on a
-  non-contiguous input, and on a type or shape it does not take. It never
-  falls back. ``.launches`` counts its f32 kernel launches,
+  ``csrc/transformer_encode.cu`` (the layers' matrices transposed for the
+  f32 tier's three-pass TF32 products, or converted to bf16 with in_proj
+  for the bf16 tier, for the call: ``stored_matrix``), whose header says
+  what bounds it and what its design does about that, or raises: on an
+  input that requires grad (the kernel has no backward; train through
+  ``apply``'s parallel pass, as JAX does; this one raises on the CPU too),
+  on a non-contiguous input, and on a type or shape it does not take. It
+  never falls back. ``.launches`` counts its f32 kernel launches,
   :func:`fused_encode_tokens_bf16` ``.launches`` the bf16 tier's.
 
 The routing threshold :func:`encode_kernel_fits` is JAX's T <= 64, a
@@ -38,7 +39,8 @@ from . import _build
 from .fused_lstm import refuse_grad
 
 __all__ = ["fused_encode_tokens", "fused_encode_tokens_bf16", "encode_kernel_fits", "layer_pointers",
-           "stored_pointers", "check_card_tensors", "check_tier", "refuse_grad", "launch", "bind", "TIERS"]
+           "stored_pointers", "stored_matrix", "check_card_tensors", "check_tier", "refuse_grad", "launch", "bind",
+           "TIERS"]
 
 MAX_LAYERS = 8  # csrc/transformer_encode.cu MAX_LAYERS
 TIERS = (torch.float32, torch.bfloat16)  # the compute dtypes of the serving kernels
@@ -73,13 +75,21 @@ def layer_pointers(layers, leaves, h: int):
     return tensors, (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def stored_matrix(w: torch.Tensor, dtype) -> torch.Tensor:
+    """A weight matrix W (K, N) as the tier's kernel reads it: a bf16 copy
+    of W in the bf16 tier; Wᵀ (N, K), contiguous, in the f32 tier, whose
+    three-pass products stage each 128 x 128 block of their B operand
+    k-contiguous (``csrc/transformer_f32mma.cuh``)."""
+    return w.to(torch.bfloat16) if dtype == torch.bfloat16 else w.t().contiguous()
+
+
 def stored_pointers(tensors, leaves, dtype):
     """The kernel's pointer table of ``layer_pointers``' tensors: the
-    matrices in ``dtype`` (converted copies in the bf16 tier), the LN
-    parameters and biases f32 → (tensors, ctypes array). ``leaves``: the
-    (sub, leaf) names of one layer, in the table's order."""
+    matrices as ``stored_matrix`` gives them for the tier of ``dtype``, the
+    LN parameters and biases f32 as they are → (tensors, ctypes array).
+    ``leaves``: the (sub, leaf) names of one layer, in the table's order."""
     names = [leaf for _, leaf in leaves] * (len(tensors) // len(leaves))
-    out = [t.to(dtype) if leaf in _MATRICES else t for t, leaf in zip(tensors, names)]
+    out = [stored_matrix(t, dtype) if leaf in _MATRICES else t for t, leaf in zip(tensors, names)]
     return out, (ctypes.c_void_p * len(out))(*[t.data_ptr() for t in out])
 
 

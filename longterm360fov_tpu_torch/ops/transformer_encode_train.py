@@ -48,7 +48,7 @@ from ..models import transformer
 from . import _build
 from .fused_lstm import _no_tf32
 from .transformer_encode import (_ENC_LEAVES, HIDDEN, MAX_LAYERS, check_card_tensors, encode_kernel_fits,
-                                 fused_encode_tokens, layer_pointers)
+                                 fused_encode_tokens, layer_pointers, stored_pointers)
 
 __all__ = ["fused_encode_train", "encode_train_fwd", "encode_train_bwd", "encode_train_dw", "partial_floats",
            "split_grads"]
@@ -227,9 +227,10 @@ def encode_train_fwd(cfg, past_n: torch.Tensor, in_proj: torch.Tensor, leaves) -
     _card_check([past_n, in_proj, pos], list(leaves), dev, "encode_train_fwd")
     enc = torch.empty((batch, t_len, _H), device=dev, dtype=torch.float32)
     stash = torch.empty((layers, N_STASH, batch * t_len, _H), device=dev, dtype=torch.float32)
+    stored, table = stored_pointers(list(leaves), _ENC_LEAVES, torch.float32)  # the matrices transposed
     with torch.cuda.device(dev):
         err = _library().transformer_encode_train_fwd_f32(
-            past_n.data_ptr(), enc.data_ptr(), stash.data_ptr(), _ptrs(leaves), in_proj.data_ptr(), pos.data_ptr(),
+            past_n.data_ptr(), enc.data_ptr(), stash.data_ptr(), table, in_proj.data_ptr(), pos.data_ptr(),
             batch, layers, t_len, d, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "encode_train_fwd")
     encode_train_fwd.launches += 1
@@ -256,9 +257,9 @@ def encode_train_bwd(cfg, past_n, in_proj, leaves, stash, g_enc, need_dx: bool
     if lib.transformer_encode_train_partial_floats(layers, d) != partial_floats(layers, d):
         raise RuntimeError("ops.transformer_encode_train and its kernel disagree on the partials' layout")
     _card_check([past_n, in_proj, stash, g_enc], list(leaves), dev, "encode_train_bwd")
-    # the transposed weights the reverse reads: Wqᵀ, Wkᵀ, Wvᵀ, Woᵀ, W1ᵀ, W2ᵀ
-    per = len(_ENC_LEAVES)
-    trans = [leaves[i + j].t().contiguous() for i in range(0, len(leaves), per) for j in (2, 3, 4, 5, 8, 10)]
+    # the transposed weight the reverse reads a layer, W1ᵀ; its other products read W
+    per, w1 = len(_ENC_LEAVES), _ENC_LEAVES.index(("mlp", "w1"))
+    trans = [leaves[i + w1].t().contiguous() for i in range(0, len(leaves), per)]
     d_x = torch.empty((batch, t_len, d), device=dev, dtype=torch.float32) if need_dx else None
     partials = torch.empty((_blocks(batch, t_len), partial_floats(layers, d)), device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
@@ -298,7 +299,12 @@ encode_train_dw.launches = 0
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The kernels' library, built at first use and loaded once."""
-    lib = _build.load("transformer_encode_train")
+    return bind(_build.load("transformer_encode_train"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``'s C entry points (this library's, or a probe build's) typed
+    for ctypes."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(vp)
     lib.transformer_encode_train_partial_floats.argtypes = [i32, i32]

@@ -890,7 +890,11 @@ def _tfm_case(layers, h_in, h_out, batch, k=0, pool="none", window=0, seed=0):
     return cfg, params, past, enc, past[:, -1].contiguous(), pm, pv
 
 
-@pytest.mark.parametrize("layers,t,batch", [(2, 30, 257), (1, 6, 8), (3, 64, 5), (2, 7, 1), (2, 30, 16387)])
+# the last three at the edges of the f32 tier's 64-row tiles: T = 64 (one
+# viewer a block) and T = 1 (64 viewers a block) one viewer past a whole
+# tile, and L = 8 (every layer of the pointer table)
+@pytest.mark.parametrize("layers,t,batch", [(2, 30, 257), (1, 6, 8), (3, 64, 5), (2, 7, 1), (2, 30, 16387),
+                                            (2, 64, 9), (2, 1, 129), (8, 30, 51)])
 def test_transformer_encode_kernel_matches_plain(layers, t, batch):
     cfg, params, past, enc, *_ = _tfm_case(layers, t, 4, batch, seed=layers)
     before = transformer_encode.fused_encode_tokens.launches
@@ -899,6 +903,31 @@ def test_transformer_encode_kernel_matches_plain(layers, t, batch):
     assert transformer_encode.fused_encode_tokens.launches == before + 1
     assert out.shape == enc.shape and torch.isfinite(out).all()
     assert (out - enc).abs().max().item() <= 3e-5
+
+
+def test_transformer_encode_kernel_repeats_bit_equal():
+    cfg, params, past, *_ = _tfm_case(2, 30, 4, 16387, seed=2)
+    first = transformer_encode.fused_encode_tokens(params, cfg, past)
+    assert torch.equal(first, transformer_encode.fused_encode_tokens(params, cfg, past))
+
+
+def test_one_pass_tf32_build_fails_the_gate():
+    """The f32 tier's products are three-pass TF32: a build that drops the
+    two small terms (-DTFM_ONE_PASS, products of 11-bit operands) is held
+    to the same 3e-5 and fails it, where the three-pass kernel passes: the
+    gate tells three passes from one."""
+    import ctypes
+
+    from longterm360fov_tpu_torch.ops import _build
+
+    cfg, params, past, enc, *_ = _tfm_case(2, 30, 4, 257, seed=2)
+    lib = transformer_encode.bind(ctypes.CDLL(str(_build.build("transformer_encode", ("TFM_ONE_PASS",)).path)))
+    tensors, _ = transformer_encode.layer_pointers(params["enc"], transformer_encode._ENC_LEAVES, 128)
+    pos = transformer._pos_enc(30, 128, device="cuda")
+    one = transformer_encode.launch(lib, tensors, params["in_proj"], pos, past, torch.float32)
+    three = transformer_encode.fused_encode_tokens(params, cfg, past)
+    assert torch.isfinite(one).all()
+    assert (three - enc).abs().max().item() <= 3e-5 < (one - enc).abs().max().item()
 
 
 @pytest.mark.parametrize("k,pool,window", [(0, "none", 0), (4, "none", 0), (3, "mean", 0), (4, "none", 2),
@@ -1129,7 +1158,10 @@ def _encoder_leaves(params):
     return [params["in_proj"]] + [layer[sub][leaf] for layer in params["enc"] for sub, leaf in et._ENC_LEAVES]
 
 
-@pytest.mark.parametrize("layers,t,batch", [(2, 30, 257), (1, 6, 8), (3, 64, 5), (2, 13, 1), (2, 30, 4096)])
+# the last four at the edges of the 64-row tiles: T = 64, T = 1, L = 8, and
+# 4097 viewers, one past a whole number of T = 30 tiles
+@pytest.mark.parametrize("layers,t,batch", [(2, 30, 257), (1, 6, 8), (3, 64, 5), (2, 13, 1), (2, 30, 4096),
+                                            (2, 64, 3), (2, 1, 65), (8, 30, 21), (2, 30, 4097)])
 def test_encode_train_kernels_match_autograd(layers, t, batch):
     cfg, params, past, cot = _encode_train_case(layers, t, batch, seed=layers + t)
     counts = [f.launches for f in (et.encode_train_fwd, et.encode_train_bwd, et.encode_train_dw)]

@@ -91,3 +91,25 @@ def test_library_yardstick_equals_encode(perturb):
     with torch.no_grad():
         got = net(emb)
     np.testing.assert_allclose(got.numpy(), transformer._encode(tp, tcfg, x).numpy(), rtol=0, atol=1e-5)
+
+
+def test_kernel_tables_hold_the_layouts_the_kernels_read():
+    """The pointer table the wrappers hand the encoder kernels: in the f32
+    tier (and row 11's forward) every matrix as Wᵀ (N, K), contiguous, since
+    its three-pass products stage B k-contiguous
+    (csrc/transformer_f32mma.cuh: FwdSrc reads Wq..Woᵀ, W1ᵀ (4H, H), W2ᵀ
+    (H, 4H)); in the bf16 tier W (K, N) in bf16; the LN parameters and
+    biases the model's own f32 tensors in both."""
+    _, _, _, tp, _ = _setup(layers=2, seed=5, perturb=True)
+    leaves = transformer_encode._ENC_LEAVES
+    tensors, _ = transformer_encode.layer_pointers(tp["enc"], leaves, 128)
+    f32, ptrs = transformer_encode.stored_pointers(tensors, leaves, torch.float32)
+    bf16, _ = transformer_encode.stored_pointers(tensors, leaves, torch.bfloat16)
+    assert list(ptrs) == [t.data_ptr() for t in f32]
+    for t, a, b, (_, leaf) in zip(tensors, f32, bf16, leaves * 2):
+        if leaf in ("wq", "wk", "wv", "wo", "w1", "w2"):
+            assert a.is_contiguous() and a.shape == t.shape[::-1] and torch.equal(a, t.t())
+            assert b.dtype == torch.bfloat16 and b.shape == t.shape and torch.equal(b, t.to(torch.bfloat16))
+        else:
+            assert a is t and b is t
+
