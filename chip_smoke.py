@@ -12,7 +12,9 @@ one line each or more:
    count of ``HMMA`` (tensor-core) instructions in the SASS (``cuobjdump
    -sass``) of the encoder kernels whose products run on the tensor cores,
    none of which may be 0: the bf16 tier, and the f32 tier and row 11's
-   forward and reverse (three-pass TF32);
+   forward and reverse (three-pass TF32); the same for every instance of
+   the lockstep peer backward (``align_peer_bwd_kernel``: both products on
+   ``mma.sync``, three-pass TF32 in f32, bf16 in bf16);
 3. each kernel against its plain PyTorch version at full width (hidden 128),
    at batches that are not a multiple of the kernels' row tiles:
    ``fused_serve`` without and with a static context (C = 128),
@@ -104,7 +106,11 @@ one line each or more:
    evaluation through the serving kernels, checkpoints, a resume that equals
    the uninterrupted run (coins included), one step through the kernels
    against plain autograd with the same coins, the step's speed, and the
-   ``ss_decode`` kernels alone against plain and cuBLAS;
+   ``ss_decode`` kernels alone against plain and cuBLAS, the dproj
+   reduction's (both compute types) beside its time before its 16-byte-load
+   design (``BEFORE``) and, from ``torch.profiler``, the device
+   time of the kernel and of cuBLAS beside the CUDA-event times, which hold
+   the host's work;
 8. the ``stacked-ss-crossuser-10s`` serving main path (K = 7 time-aligned
    peers, 100 frames in and out): the batcher in front of the lockstep tier,
    every answer against the port's plain path on the CPU and the numpy
@@ -115,9 +121,14 @@ one line each or more:
 9. the ``stacked-ss-crossuser-10s`` training main path: ``train.train_loop``
    at B = 4096 through ``aligned_ss_decode`` (peers and decoder) and
    ``lstm_seq_states`` (encoder), as in 7, and the aligned kernels alone
-   against plain and cuDNN/cuBLAS; then one line per dW reduction (f32 and
+   against plain and cuDNN/cuBLAS, the profiled step's device busy time and
+   the peer backward's share of it, the peer backward (both compute types)
+   beside its time before its tensor-core design (``BEFORE``), its bound
+   (f32: its products at a third of the dense TF32 peak, the gates' h part,
+   exact in TF32 on bf16 residuals, at half of it) beside the FMA units'
+   bound of the same work; then one line per dW reduction (f32 and
    bf16 compute, phases 5, 7 and 9) with its time beside its time before
-   the pack-and-tensor-core design (``DW_BEFORE``), its bound's share of it,
+   the pack-and-tensor-core design (``BEFORE``), its bound's share of it,
    cuBLAS's time and the registers and shared memory of its kernels; phase
    5 also times the pack kernel alone;
 10. the feature path: two synthetic uint8 clips (1200 frames of 480 x 960,
@@ -150,9 +161,9 @@ one line each or more:
    alone in both tiers against plain (the encoder also against
    ``nn.TransformerEncoder`` with the same weights, in the tier's type) at
    B = 16384, and the f32 encoder at 65,536 too; the bf16 encoder's time
-   beside its time before the tensor-core design (``ENC_BF16_BEFORE``), its
+   beside its time before the tensor-core design (``BEFORE``), its
    bound's share, its readings and the time split of its probe build; the
-   f32 encoder's beside its FMA design's (``ENC_F32_BEFORE``) and its bound
+   f32 encoder's beside its FMA design's (``BEFORE``) and its bound
    beside the FMA units' bound of the same work;
 14. the ``transformer-30`` training main path: ``train.train_loop`` at
    B = 4096 with K = 4 peers, noisy teacher forcing annealing 1 → 0.3, the
@@ -203,8 +214,10 @@ Then one JSON line on the kernels (launches on their main path, max error
 over every check, kernel, plain and library times by CUDA events, and the
 bound: the larger of the work's FLOP over the peak of its type, the f32
 FMA peak or, for the bf16 tiers' products, the dense bf16 tensor-core
-peak, or, for the f32 encoder's products (three-pass TF32), a third of the
-dense TF32 peak beside its attention on the FMA units, and its bytes, in
+peak, or, for the f32 encoder's and the f32 peer backward's products
+(three-pass TF32), a third of the dense TF32 peak beside the encoder's
+attention on the FMA units (the peer backward's gates' h part, exact in
+TF32 on bf16 residuals, at half of it: two passes), and its bytes, in
 the types the tier stores and reads, over the memory rate),
 and last the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -297,12 +310,20 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 # TF32 peak (495 TFLOP/s, data sheet) over three passes
 TF32X3_FLOPS = 495e12 / 3
 HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
-# the dW reductions' times before the pack-and-tensor-core design (PERF.md
-# §6's earlier readings, CUDA events on an NVIDIA H100 80GB HBM3 at
-# 700.00 W), printed beside this run's times
-DW_BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_decode_dw": 3.920,
-             "ss_decode_dw_bf16": 3.777, "aligned_dec_dw": 20.739, "aligned_dec_dw_bf16": 20.681,
-             "aligned_peer_dw": 20.808, "aligned_peer_dw_bf16": 21.833}
+# each redesigned kernel's time before its redesign (PERF.md §6's earlier
+# readings, CUDA events on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
+# beside this run's (report_redesign): the dW reductions before the
+# pack-and-tensor-core design; row 10b before its tensor-core design (B =
+# 16384, T = 30, L = 2); rows 10 and 11 on the FMA units (B = 16384 and
+# 65,536, and 4096 for row 11); the peer backward (rows 7 / 7b) and dproj
+# (rows 6 / 6b) before their tensor-core and 16-byte-load designs
+BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_decode_dw": 3.920,
+          "ss_decode_dw_bf16": 3.777, "aligned_dec_dw": 20.739, "aligned_dec_dw_bf16": 20.681,
+          "aligned_peer_dw": 20.808, "aligned_peer_dw_bf16": 21.833, "fused_encode_tokens_bf16": 19.151,
+          "fused_encode_tokens": 23.980, "fused_encode_tokens B=65536": 94.329, "encode_train_fwd": 6.458,
+          "encode_train_bwd": 15.915, "aligned_peer_bwd": 53.983, "aligned_peer_bwd_bf16": 47.555,
+          "ss_decode_dproj": 0.073, "ss_decode_dproj_bf16": 0.049}
+DW_NAMES = [n for n in BEFORE if n.rsplit("_bf16", 1)[0].endswith("_dw")]
 # the cell kernel against lstm_cell: one step, exact f32 FMAs in another order
 # (tests/test_fused_lstm.py's bound for the TPU cell)
 CELL_TOL = 1e-5
@@ -342,16 +363,10 @@ BF16_TOL, BF16_F32_TOL = 5e-2, 0.08
 # version, BF16_F32_TOL of the f32 one, and the floor; its enc_mem is f32
 ABSOLUTE += ("tf_encode",)
 BF16C_TIGHT["tf_encode"], BF16C_CONTRACT["tf_encode"] = BF16_TOL, BF16_F32_TOL
-# row 10b's time before the tensor-core design (PERF.md §6: CUDA events at
-# B = 16384, T = 30, L = 2 on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
-# beside this run's time
-ENC_BF16_BEFORE = 19.151
-# the f32 encoder's kernels before the three-pass TF32 design (rows 10 and
-# 11 on the FMA units, PERF.md): their times (§6, CUDA events at B = 16384,
-# and 4096 for row 11, on an NVIDIA H100 80GB HBM3 at 700.00 W) and the
-# time splits of their probe builds (§5, scripts/torch_encode_f32_probe.py
-# on the same card), printed beside this run's
-ENC_F32_BEFORE = {"fused_encode_tokens": 23.980, "encode_train_fwd": 6.458, "encode_train_bwd": 15.915}
+# the time splits of the f32 encoder's probe builds before the three-pass
+# TF32 design (rows 10 and 11 on the FMA units, PERF.md §5,
+# scripts/torch_encode_f32_probe.py on an NVIDIA H100 80GB HBM3 at
+# 700.00 W), printed beside this run's
 ENC_F32_SPLIT_BEFORE = {
     "fused_encode_tokens": {"mma": 0.627, "attention": 0.162, "barriers": 0.052, "chunk waits": 0.051,
                             "in_proj": 0.033, "layer norms": 0.023, "b1 + GELU": 0.022, "epilogues": 0.017},
@@ -1648,7 +1663,9 @@ def drive_bf16_training(cfg, path, dev, also, smi, steps=6, rows=512, windows_=N
     print(f"{path}: train step (B={cfg.batch_size}, fast step, CUDA events, {smi}), through the kernels in "
           f"the f32 and the bf16 compute type: {json.dumps({tc: {'ms_per_step': v} for tc, v in ms.items()})}",
           flush=True)
-    profile_device(f"{path}: fast step", steps_["bfloat16"], max(2, iters // 2), smi)
+    prof = profile_device(f"{path}: fast step", steps_["bfloat16"], max(2, iters // 2), smi)
+    if any("align_peer_bwd_kernel" in name for name in prof[1]):
+        peer_bwd_share(f"{path}: fast step", prof, smi)
     return launches
 
 
@@ -1709,7 +1726,8 @@ def profile_device(label, fn, iters, smi):
     """Where the device time goes over ``iters`` calls of ``fn``: the CUDA
     kernels torch.profiler (CUPTI) records, summed by name, and the device's
     idle share of the host's wall time (1 - the union of kernel intervals
-    over the wall time, which the profiler's own overhead inflates)."""
+    over the wall time, which the profiler's own overhead inflates) →
+    (device busy ms a call, {kernel name: ms a call})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1732,6 +1750,59 @@ def profile_device(label, fn, iters, smi):
     print(f"{label}: profile over {iters} calls ({smi}): wall {wall_us / 1e3 / iters:.3f} ms per call, "
           f"device busy {busy / 1e3 / iters:.3f} ms, idle share {1 - busy / wall_us:.3f}, "
           f"{len(spans)} device events; ms per call by kernel {json.dumps(top)}", flush=True)
+    return busy / 1e3 / iters, by_name
+
+
+def device_ms(fn, iters):
+    """The device time of one call of ``fn``: the CUDA kernels that
+    torch.profiler (CUPTI) records over ``iters`` calls, summed, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+
+def peer_bwd_share(label, prof, smi):
+    """The peer backward's share of a profiled 10 s train step's device busy
+    time (``prof``: profile_device's)."""
+    busy, by_name = prof
+    peer = sum(ms for name, ms in by_name.items() if "align_peer_bwd_kernel" in name)
+    print(f"{label}: device busy {busy:.3f} ms a step, the peer backward (align_peer_bwd_kernel) {peer:.3f} ms, "
+          f"{peer / busy:.1%} of it ({smi})", flush=True)
+
+
+def report_redesign(name, smi, t=None, io=None, before=None, fma_bound=None, device=None, extra=""):
+    """One redesigned kernel: this run's time (``t``, TIMES' keys; else
+    TIMES[name]) beside its time before its design (BEFORE[``before`` or
+    name], PERF.md), its bound (from ``io``, bound()'s (work, reads,
+    writes), where given) and the bound's share of the time, its library
+    call's time, the bound of the same work on the FMA units (``fma_bound``
+    ms, or from ``io``: products that moved to the tensor cores), its device
+    time and its library's (``device``, {"kernel", "library"}: ms a call
+    from torch.profiler, beside the CUDA-event times, which hold the host's
+    work too), and ``extra``."""
+    t = dict(TIMES[name] if t is None else t)
+    if io is not None:
+        work, reads, writes = io
+        t["bound_ms"], t["bound_by"] = bound(work, reads, writes)
+        fma_bound = bound(flop_of(work), reads, writes)[0]
+    lib = t.get("library_ms")
+    lib = "none (another function)" if lib is None else f"{lib:.4f} ms ({lib / t['ms']:.2f}x the kernel's time)"
+    line = (f"{name}: {t['ms']:.4f} ms (before this design {BEFORE[before or name]} ms, PERF.md), bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bound_ms'] / t['ms']:.1%} of the time), library {lib}")
+    if fma_bound is not None:
+        line += f", on the FMA units {fma_bound:.3f} ms"
+    if device is not None:
+        line += (f"; device time a call (torch.profiler): kernel {device['kernel']:.4f} ms, library "
+                 f"{device['library']:.4f} ms")
+    print(f"{line}{extra} ({smi})", flush=True)
 
 
 def cudnn_lstm(ps, in0, dev, training, dtype=torch.float32):
@@ -1932,23 +2003,50 @@ def report_tensor_cores(builds):
         raise AssertionError(f"an encoder kernel has no HMMA instruction, its products off the tensor cores: {hmma}")
 
 
+def report_peer_bwd(builds):
+    """Every instance of the peer backward (residual type, compute type,
+    ctx_dim): its registers, spills and shared memory (ptxas; the dynamic
+    shared memory of the 10 s training shape's block, from the library) and
+    the count of HMMA instructions in its SASS; fails if an instance has
+    none: both products of every instance run on mma.sync."""
+    sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
+                           str(builds["lstm_align"].path)], capture_output=True, text=True, check=True).stdout
+    hmma, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip() if "align_peer_bwd_kernel" in ln else None
+            if fn:
+                hmma[fn] = 0
+        elif fn and "HMMA" in ln:
+            hmma[fn] += 1
+    lib = lstm_align.bind(ctypes.CDLL(str(builds["lstm_align"].path)))
+    for sym, n in hmma.items():
+        args = sym.split("align_peer_bwd_kernelI")[1]
+        rt = "bf16" if args.startswith("13__nv_bfloat16") else "f32"
+        args = args[len("13__nv_bfloat16") if rt == "bf16" else 1:]
+        ct = "f32" if args.startswith("f") else "bf16"
+        c = 8 * int(args.split("Li")[1].split("E")[0])
+        smem = lib.peer_bwd_smem(c, 7, int(rt == "bf16"), int(ct == "bf16"))
+        print(f"align_peer_bwd_kernel<RT {rt}, CT {ct}, C={c}>: {n} HMMA instructions in its SASS; "
+              f"{json.dumps(ptxas_resources('lstm_align', (sym,)))}, {smem} bytes of dynamic shared memory at 7 "
+              f"warps a block", flush=True)
+    if len(hmma) != 4 * len(lstm_align.PEER_BWD_CTX) or not all(hmma.values()):
+        raise AssertionError(f"a peer backward instance has no HMMA instruction, its products off the tensor cores: "
+                             f"{hmma}")
+
+
 def report_dw(smi):
-    """One line per dW instance: this run's time beside its time before the
-    redesign (DW_BEFORE, PERF.md), its bound and the bound's share of the
-    time, cuBLAS's time for the same products, and the registers, shared
-    memory and spills of its product kernel and its pack kernel (bf16
-    residuals, the main path's)."""
+    """One line per dW instance (report_redesign, the library cuBLAS's
+    products): with the registers, shared memory and spills of its product
+    kernel and its pack kernel (bf16 residuals, the main path's)."""
     sources = {"lstm_seq_states": ("lstm_train", "Li0E"), "ss_decode": ("lstm_ss", "Li1E"),
                "aligned_dec": ("lstm_align", "Li2E"), "aligned_peer": ("lstm_align", "Li0E")}
-    for name, before in DW_BEFORE.items():
-        t = TIMES[name]
+    for name in DW_NAMES:
         src, mode = sources[name.rsplit("_dw", 1)[0]]
         ct = "13__nv_bfloat16" if name.endswith("bf16") else "f"
         product = ptxas_resources(src, ("lstm_dw_partial_kernel", f"kernelI{ct}E"))
         pack = ptxas_resources(src, ("lstm_dw_pack_kernel", f"kernelI13__nv_bfloat16{mode}{'S0_' if ct != 'f' else 'f'}E"))
-        print(f"{name}: {t['ms']:.3f} ms (before this design {before} ms, PERF.md), bound {t['bound_ms']:.3f} ms "
-              f"({t['bound_by']}; {t['bound_ms'] / t['ms']:.1%} of the time), cuBLAS {t['library_ms']:.3f} ms; "
-              f"product kernel {json.dumps(product)}, pack kernel {json.dumps(pack)} ({smi})", flush=True)
+        report_redesign(name, smi, extra=f"; product kernel {json.dumps(product)}, pack kernel {json.dumps(pack)}")
 
 
 # --------------------------------------------------------------- stacked-ss-crossuser serving
@@ -2221,6 +2319,8 @@ def time_ss_kernels(dev, smi):
                    f"ss_decode bf16-compute kernels alone (ms, B={TRAIN_B}, L={layers}, C={ctx_dim}, bf16 "
                    f"residuals, Bernoulli coins, CUDA events, against the f32-compute kernels; library: one "
                    f"cuBLAS bmm / matmul on bf16 operands; none computes a recurrence with feedback)", smi)
+    for name, fns in (("ss_decode_dproj", calls["ss_decode_dproj"]), ("ss_decode_dproj_bf16", bcalls["ss_decode_dproj_bf16"])):
+        report_redesign(name, smi, device={w: device_ms(fns[w], 20) for w in ("kernel", "library")})
 
 
 def time_aligned_kernels(dev, smi):
@@ -2284,6 +2384,8 @@ def time_aligned_kernels(dev, smi):
     ins = [3 + c] + [128] * (layers - 1)
     proj = 2 * TRAIN_B * t * 128 * 3
     peer_pass = stack_flop(rows, t, [3], c)
+    gate_h = 2 * rows * t * c * 4 * c  # the recomputed gates' h part
+    flop = {"aligned_peer_bwd": 2 * peer_pass}  # where a bound's work is not its FLOP
     w = [x for p in ps for x in p]
     res_all = res.hs + res.cs + res.gs
     work = {
@@ -2294,7 +2396,11 @@ def time_aligned_kernels(dev, smi):
         "aligned_dec_bwd": (stack_flop(TRAIN_B, t, ins, 128) + proj,
                             [a["dys"], a["c0"], a["coins"], a["proj_w"], *w, *res.cs, *res.gs],
                             [*dgates, *bw[1:]]),
-        "aligned_peer_bwd": (2 * peer_pass, [pxs, pwt, *peer, php, pcp, dctx], list(pbw)),
+        # the products on the tensor cores, three-pass TF32, but for the gates'
+        # h part, exact in TF32 on bf16 residuals: two passes, 2/3 of its FLOP
+        # at the three-pass rate
+        "aligned_peer_bwd": ({TF32X3_FLOPS: 2 * peer_pass - (gate_h / 3 if rd == BF else 0)},
+                             [pxs, pwt, *peer, php, pcp, dctx], list(pbw)),
         "aligned_dec_dw": (stack_flop(TRAIN_B, t, ins, 128) + 2 * TRAIN_B * t * 4 * 128 * layers
                            + 2 * TRAIN_B * t * c * k,
                            [a["h0"], a["y0"], a["teacher"], a["coins"], pwt, php, ys, *res.hs, *res.cs[:-1],
@@ -2328,12 +2434,15 @@ def time_aligned_kernels(dev, smi):
         bcalls[name]["plain"] = fn
     bcalls["aligned_dec_dw_bf16"]["library"] = dw_library(zs, dgates, BF)
     bcalls["aligned_peer_dw_bf16"]["library"] = lambda: zpb.t() @ dpg2b
-    time_bf16_tier(bcalls, {n: work[n[:-5]] for n in bcalls}, [p.w for p in ps] + [peer.w, a["proj_w"]],
+    time_bf16_tier(bcalls, {n: (flop.get(n[:-5], work[n[:-5]][0]), *work[n[:-5]][1:]) for n in bcalls},
+                   [p.w for p in ps] + [peer.w, a["proj_w"]],
                    {"plain": 1, "kernel": 3, "f32_kernel": 3, "library": 3},
                    f"aligned_ss_decode bf16-compute kernels alone (ms, B={TRAIN_B}, K={k}, T={t}, L={layers}, "
                    f"C=H=128, bf16 residuals, Bernoulli coins, CUDA events, against the f32-compute kernels; "
                    f"library: one cuBLAS bmm / matmul on bf16 operands; none computes a recurrence with "
                    f"feedback)", smi)
+    report_redesign("aligned_peer_bwd", smi, fma_bound=2 * peer_pass / F32_FLOPS * 1e3)
+    report_redesign("aligned_peer_bwd_bf16", smi)
 
 
 # --------------------------------------------------------------- video-fusion: features
@@ -2987,7 +3096,7 @@ def time_tf_kernels(dev, params, cfg, batch, smi, keep):
             if name == "fused_encode_tokens_bf16":
                 enc_bf16 = {"ms": ms["kernel"], "library_ms": ms["library"], "bound_ms": b_ms, "bound_by": b_by}
             elif name == "fused_encode_tokens":
-                report_encode_f32(name, ms, *io[name], smi)
+                report_redesign(name, smi, {"ms": ms["kernel"], "library_ms": ms["library"]}, io[name])
     report_encode_bf16(enc_bf16, enc_readings, params, m, past_n, smi)
 
 
@@ -3053,7 +3162,7 @@ def encode_train_splits(params, m, past_n, cot):
 def time_encode_f32(dev, params, cfg, batch, smi, before):
     """Row 10's f32 tier alone at a larger serving batch, checked first,
     against its plain version and nn.TransformerEncoder in turns, beside its
-    FMA design's time there (``before``, PERF.md)."""
+    FMA design's time there (BEFORE[``before``], PERF.md)."""
     m = cfg.model
     rng = np.random.default_rng(19)
     past_n = windows.normalize_window(unit_rows(rng, dev, (batch, m.h_in)))[0].contiguous()
@@ -3071,9 +3180,9 @@ def time_encode_f32(dev, params, cfg, batch, smi, before):
     flop = tf_work(m, batch, 0, 0)[0]
     print(f"fused_encode_tokens alone (B={batch}, L={m.layers}, T={m.h_in}; ms, CUDA events, {smi}): "
           f"{json.dumps(ms)}; max_abs_err vs plain {err:.3e} (tolerance {TF_TOL})", flush=True)
-    report_encode_f32("fused_encode_tokens", ms,
-                      tf32_work(flop, 2 * batch * m.h_in * m.layers * 12 * m.hidden ** 2),
-                      [past_n, params["in_proj"]] + tree_leaves(params["enc"]), [enc], smi, before)
+    report_redesign("fused_encode_tokens", smi, {"ms": ms["kernel"], "library_ms": ms["library"]},
+                    (tf32_work(flop, 2 * batch * m.h_in * m.layers * 12 * m.hidden ** 2),
+                     [past_n, params["in_proj"]] + tree_leaves(params["enc"]), [enc]), before)
 
 
 def report_f32_splits(dev, smi):
@@ -3092,19 +3201,15 @@ def report_f32_splits(dev, smi):
 
 
 def report_encode_bf16(t, readings, params, m, past_n, smi):
-    """Row 10b on the tensor cores: this run's time beside its time before
-    the design (ENC_BF16_BEFORE), its bound's share of the time,
-    nn.TransformerEncoder's bf16 time, the readings of check_outputs, and
+    """Row 10b on the tensor cores (report_redesign, the library
+    nn.TransformerEncoder in bf16): with the readings of check_outputs and
     the time split of the probe build (in-kernel clock64 of thread 0 of
     every block, each part's share of the clocks summed over the blocks)."""
     probe_ms, split, clocks = encode_split(params, m, past_n, BF)
-    print(f"fused_encode_tokens_bf16 (tensor cores): {t['ms']:.3f} ms (before this design {ENC_BF16_BEFORE} ms, "
-          f"PERF.md), bound {t['bound_ms']:.3f} ms ({t['bound_by']}; {t['bound_ms'] / t['ms']:.1%} of the time), "
-          f"nn.TransformerEncoder bf16 {t['library_ms']:.3f} ms ({t['library_ms'] / t['ms']:.2f}x the kernel's time); "
-          f"largest gap to the bf16 plain version {readings['bf16']:.3e}, to f32 {readings['f32']:.3e}, floor "
-          f"{readings['floor']:.4f}; a repeat bit-equal; split of the probe build ({probe_ms:.3f} ms a call, "
-          f"{clocks:.0f} clocks a block): {json.dumps(split)} "
-          f"({smi})", flush=True)
+    report_redesign("fused_encode_tokens_bf16", smi, t, extra=(
+        f"; largest gap to the bf16 plain version {readings['bf16']:.3e}, to f32 {readings['f32']:.3e}, floor "
+        f"{readings['floor']:.4f}; a repeat bit-equal; split of the probe build ({probe_ms:.3f} ms a call, "
+        f"{clocks:.0f} clocks a block): {json.dumps(split)}"))
 
 
 def tf_grad_check(cfg, state, train_d):
@@ -3195,20 +3300,6 @@ def encoder_train_work(m, batch):
             tf32_work(bwd, 2 * batch * t * layers * 24 * h * h))
 
 
-def report_encode_f32(name, ms, work, reads, writes, smi, before=None):
-    """One of the f32 encoder's kernels on three-pass TF32: this run's time
-    beside its time before the design (``before``, else ENC_F32_BEFORE),
-    its bound and the bound's share of the time, beside the bound of the
-    same work on the FMA units, and its library call's time."""
-    b_ms, b_by = bound(work, reads, writes)
-    fma_ms, fma_by = bound(sum(work.values()), reads, writes, F32_FLOPS)
-    before = ENC_F32_BEFORE[name] if before is None else before
-    print(f"{name} (three-pass TF32): {ms['kernel']:.3f} ms (before this design {before} ms, "
-          f"PERF.md), bound {b_ms:.3f} ms ({b_by}; {b_ms / ms['kernel']:.1%} of the time; on the FMA units "
-          f"{fma_ms:.3f} ms by {fma_by}), library {ms['library']:.3f} ms ({ms['library'] / ms['kernel']:.2f}x "
-          f"the kernel's time) ({smi})", flush=True)
-
-
 def time_encode_train(dev, params, cfg, batch, smi):
     """Row 11's three kernels alone at the training batch, each against its
     plain version and the yardstick, in turns: the forward with its stash
@@ -3256,8 +3347,8 @@ def time_encode_train(dev, params, cfg, batch, smi):
         print(f"{name} alone (B={batch}, T={m.h_in}, L={m.layers}, {parts.shape[0]} blocks; ms, CUDA events, "
               f"{smi}): {json.dumps(t)}; bound {TIMES[name]['bound_ms']:.3f} ms by {TIMES[name]['bound_by']}",
               flush=True)
-        if name in ENC_F32_BEFORE:
-            report_encode_f32(name, t, *io[name], smi)
+        if name in BEFORE:
+            report_redesign(name, smi, {"ms": t["kernel"], "library_ms": t["library"]}, io[name])
     del stash, parts, lib_out
     x = past_n.clone().requires_grad_(True)
     for leaf in [w_in, *leaves]:
@@ -3691,6 +3782,7 @@ def main():
     for name, b in (("transformer_encode", PROBE_BUILD), ("transformer_encode_train", PROBE_TRAIN_BUILD)):
         print(f"build: {name}.cu -DTFM_PROBE (the time split's probe) by nvcc in {b.seconds:.2f} s", flush=True)
     report_tensor_cores(builds)
+    report_peer_bwd(builds)
 
     phase("3 kernels vs plain")
     # 3. every kernel against its plain version at full width; the f32
@@ -3778,7 +3870,7 @@ def main():
         "fused_serve_peers", "peer_context", "lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw",
         "ss_decode_dproj", "lstm_dw_pack"], step_tol=ALIGN_STEP_REL_TOL)
     step = time_training(c10tcfg, c10trained, c10train_d, CU10_TRAIN, smi, plain_iters=1, kernel_iters=5)
-    profile_device(f"{CU10_TRAIN}: fast step", step, 3, smi)
+    peer_bwd_share(f"{CU10_TRAIN}: fast step", profile_device(f"{CU10_TRAIN}: fast step", step, 3, smi), smi)
     del step, c10trained
     torch.cuda.empty_cache()
     time_aligned_kernels(dev, smi)
@@ -3839,7 +3931,7 @@ def main():
         profile_device(f"{TF_SERVE}: {str(tier)[6:]} serve call at B=16384",
                        serve_call(tfcfg, tparams, dev, 16384, tier), 2, smi)
     time_tf_kernels(dev, tparams, tfcfg, 16384, smi, keep=True)
-    time_encode_f32(dev, tparams, tfcfg, 65536, smi, before=94.329)
+    time_encode_f32(dev, tparams, tfcfg, 65536, smi, before="fused_encode_tokens B=65536")
     torch.cuda.empty_cache()
 
     phase("14 train transformer-30")

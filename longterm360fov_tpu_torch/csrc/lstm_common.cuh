@@ -7,10 +7,14 @@
 //     activation (h, x, dgates, dy) is kept in f32 and rounded where it
 //     enters a product. Carries, gates, the cell update, residual stores and
 //     the sums db, dproj_b stay f32;
-//   * the thread tile: TR = 4 batch rows x TJ = 4 hidden units per thread,
-//     a layer input held k-major (K, R) in shared memory, and accumulate<NG>,
-//     the FMA loop that reads W rows with 16-byte loads;
+//   * the thread tile of the forwards and the decoder backward: TR = 4 batch
+//     rows x TJ = 4 hidden units per thread, a layer input held k-major
+//     (K, R) in shared memory, and accumulate<NG>, the FMA loop that reads W
+//     rows with 16-byte loads (the peer backward of lstm_align.cu has its
+//     own tiles on the tensor cores, tensor_core.cuh's mma.sync);
 //   * fwd_layer_step, one forward layer-step with its residual stores;
+//   * the cp.async copies (16 and 4 bytes, groups) of the dW products and
+//     the peer backward;
 //   * the deterministic dW/db reduction: lstm_dw_pack_kernel writes each
 //     layer's z = [h_{t-1}, input_t, 1] once, in the compute type, building
 //     it with the MODE loader (the teacher-forced LSTM; layer 0 of the
@@ -21,7 +25,7 @@
 //     of the (b, t) rows, on tensor cores in bf16 and exact FMAs in f32;
 //     lstm_dw_sum_kernel adds the slices in a fixed order (no float atomics).
 // lstm_train.cu's header says what bounds these kernels on the card and how
-// the design answers it.
+// the design answers it; lstm_align.cu's, the peer backward's.
 
 #pragma once
 
@@ -487,10 +491,18 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(ok ? 16 : 0));  // src size 0: 16 bytes of zeros
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// 4 bytes (cp.async.ca: the size .cg does not take); zeros when !ok
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(ok ? 4 : 0));
 }
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// every group but the newest N complete
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
 
 // The product's tile per compute type. Both tiers: a block of 256 threads
 // owns DW_F features x DW_T columns over one slice of the rows, staged KQ

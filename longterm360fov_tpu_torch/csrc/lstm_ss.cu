@@ -26,8 +26,8 @@
 //     [x_t, ctx, h_{t-1}] with x_t rebuilt from coin, teacher and the f32
 //     ys (y0 at t = 0), as the TPU backward rebuilds it; layer l > 0 reads
 //     o·tanh(c) of the layer below from the residuals;
-//   * ss_dproj_partial_kernel + lstm_dw_sum_kernel: dproj_w = Σ h_topᵀ·dy and
-//     dproj_b = Σ dy over the B·T rows, h_top read from the residuals.
+//   * ss_dproj_partial_kernel + ss_dproj_sum_kernel: dproj_w = Σ h_topᵀ·dy
+//     and dproj_b = Σ dy over the B·T rows, h_top read from the residuals.
 // The bf16 compute type rounds both operands of every product to bf16 and
 // sums in f32, as lstm_train.cu's does, here also in the projection
 // y = h_top·proj_w (ys and the fed-back y stay f32), dy·proj_wᵀ, the
@@ -62,44 +62,118 @@
 // dproj reduction
 // ---------------------------------------------------------------------------
 
-// Block s sums the rows q of its slice in `groups` interleaved row groups of
-// H + 32 threads: thread j < H of a group holds dproj_w[j][:D] += h_top[q][j]
-// · dy[q][:D], lane j - H < D of its last warp dproj_b[j - H] += dy[q][j - H].
-// The groups are added in order through shared memory into
-// partial[s] = (dproj_w (H, D) row-major, dproj_b (D,)). CT rounds h_top and
-// dy in dproj_w's product; dproj_b sums dy as it is.
+#define DPROJ_THREADS 256
+#define DPROJ_TILE 256  // dy rows staged in shared memory at a time
+#define DPROJ_AHEAD 4   // h rows a thread has in flight
+
+// 16 bytes of residual values, widened: 4 f32 or 8 bf16
+__device__ __forceinline__ void ld16(const float* p, float (&v)[4]) { F::ld4(p, v); }
+__device__ __forceinline__ void ld16(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// Replaces the dproj part of lstm_ss.py::_bwd_kernel. What bounds it: bytes,
+// h_top read once (B·T·H in the residual type: 31.5 MB in bf16 at the
+// training shapes) and dy (1.5 MB): 9.8 µs at 3.35 TB/s. The FMA design
+// read 2 bytes a thread a row (33-38 µs on the card); this one reads 16.
+// Block s sums the rows q of its slice [s·chunk, (s + 1)·chunk) (chunk a
+// multiple of 4). A row's h_top is H / UV threads of UV = 16 / sizeof(RT)
+// units, one 16-byte load each; the block's 256 / (H / UV) row groups
+// (rounded down: the threads past the last group only stage dy) take the
+// slice's rows in turn, DPROJ_AHEAD rows in flight a thread. The slice's
+// dy, contiguous, is staged DPROJ_TILE rows at a time in shared memory by
+// 16-byte loads (a row is read there as a broadcast). Thread j of group r:
+// dproj_w[j·UV + u][d] += h_top[q][j·UV + u] · dy[q][d], both rounded to CT;
+// its group's first thread also dproj_b[d] += dy[q][d], unrounded. The groups
+// are added in order through shared memory into partial[s] = (dproj_w (H, D)
+// row-major, dproj_b (D,)). 80 registers (f32 h) or 101 (bf16), no spills;
+// 4 KB of dy and groups x (H + 1)·D floats of shared memory.
 template <typename RT, typename CT>
-__global__ void __launch_bounds__(1024)
-    ss_dproj_partial_kernel(const RT* __restrict__ hs_top,
-                            const float* __restrict__ dy,
-                            float* __restrict__ partial, int Q, int D, int H,
-                            int chunk, int groups) {
-  extern __shared__ float red[];  // (groups, (H + 1) * D)
-  const int width = H + 32, out = (H + 1) * D;
-  const int g = threadIdx.x / width, j = threadIdx.x % width;
-  const int q_begin = blockIdx.x * chunk;
-  const int q_end = min(q_begin + chunk, Q);
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (j < H) {
-#pragma unroll 4
-    for (int q = q_begin + g; q < q_end; q += groups) {
-      const float h = cround<CT>(Res<RT>::ld(hs_top + (size_t)q * H + j));
+__global__ void __launch_bounds__(DPROJ_THREADS)
+    ss_dproj_partial_kernel(const RT* __restrict__ hs_top, const float* __restrict__ dy,
+                            float* __restrict__ partial, int Q, int D, int H, int chunk) {
+  constexpr int UV = 16 / sizeof(RT);
+  __shared__ __align__(16) float dys[DPROJ_TILE * 4];
+  extern __shared__ float red[];  // (groups, (H + 1) · D)
+  const int tpr = H / UV, groups = DPROJ_THREADS / tpr, out = (H + 1) * D;
+  const int gr = threadIdx.x / tpr, j = threadIdx.x % tpr;
+  const int q_begin = min(blockIdx.x * chunk, Q), q_end = min(q_begin + chunk, Q);
+  float acc[UV][4] = {}, db[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int base = q_begin; base < q_end; base += DPROJ_TILE) {
+    const int n = min(DPROJ_TILE, q_end - base), nf = n * D;
+    __syncthreads();  // the last tile's reads are done
+    const float* src = dy + (size_t)base * D;  // 16-byte aligned: base·D is a multiple of 4
+    for (int i = threadIdx.x; i < nf / 4; i += DPROJ_THREADS)
+      reinterpret_cast<float4*>(dys)[i] = reinterpret_cast<const float4*>(src)[i];
+    for (int i = nf / 4 * 4 + threadIdx.x; i < nf; i += DPROJ_THREADS) dys[i] = src[i];
+    __syncthreads();
+    for (int r0 = gr; gr < groups && r0 < n; r0 += DPROJ_AHEAD * groups) {
+      float h[DPROJ_AHEAD][UV];
+#pragma unroll
+      for (int a = 0; a < DPROJ_AHEAD; ++a) {
+        const int r = r0 + a * groups;
+        if (r < n) {
+          ld16(hs_top + (size_t)(base + r) * H + j * UV, h[a]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < UV; ++u) h[a][u] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < DPROJ_AHEAD; ++a) {
+        const int r = r0 + a * groups;
+        if (r >= n) break;
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          if (d >= D) break;
+          const float y = dys[r * D + d], yc = cround<CT>(y);
+#pragma unroll
+          for (int u = 0; u < UV; ++u) acc[u][d] = fmaf(cround<CT>(h[a][u]), yc, acc[u][d]);
+          db[d] += y;
+        }
+      }
+    }
+  }
+  if (gr < groups) {
+#pragma unroll
+    for (int u = 0; u < UV; ++u)
 #pragma unroll
       for (int d = 0; d < 4; ++d)
-        if (d < D) acc[d] = fmaf(h, cround<CT>(dy[(size_t)q * D + d]), acc[d]);
-    }
-#pragma unroll
-    for (int d = 0; d < 4; ++d)
-      if (d < D) red[g * out + j * D + d] = acc[d];
-  } else if (j - H < D) {
-    for (int q = q_begin + g; q < q_end; q += groups) acc[0] += dy[(size_t)q * D + j - H];
-    red[g * out + H * D + j - H] = acc[0];
+        if (d < D) red[gr * out + (j * UV + u) * D + d] = acc[u][d];
+    if (j == 0)
+      for (int d = 0; d < D; ++d) red[gr * out + H * D + d] = db[d];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < out; i += blockDim.x) {
+  for (int i = threadIdx.x; i < out; i += DPROJ_THREADS) {
     float s = red[i];
     for (int k = 1; k < groups; ++k) s += red[k * out + i];
     partial[(size_t)blockIdx.x * out + i] = s;
+  }
+}
+
+// dproj_w[i] (i < H·D) and dproj_b[i - H·D] = the sum of partial[k][i] over
+// the S slices, a warp an output: lane l adds slices l, l + 32, .. in
+// order, then the 32 lane sums in a fixed tree (lane 0's).
+__global__ void ss_dproj_sum_kernel(const float* __restrict__ partial, int S, int HD, int out,
+                                    float* __restrict__ dpw, float* __restrict__ dpb) {
+  const int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (i >= out) return;
+  float s = 0.0f;
+  for (int k = lane; k < S; k += 32) s += partial[(size_t)k * out + i];
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+  if (lane == 0) {
+    if (i < HD)
+      dpw[i] = s;
+    else
+      dpb[i - HD] = s;
   }
 }
 
@@ -152,25 +226,24 @@ int ss_dw(const void* h0, const void* y0, const void* teacher,
 
 // dproj_w (hidden, d) and dproj_b (d,) over the batch·t_len rows of hs_top
 // (residual type) and dy (f32), d <= 4, in the bf16 compute type when
-// cbf16. `partial` holds splits x (hidden + 1) x d floats.
+// cbf16; hidden a multiple of 16 / sizeof(residual) whose row is at most
+// 256 pieces of 16 bytes. `partial` holds splits x (hidden + 1) x d floats.
 int ss_dproj(const void* hs_top, const void* dy, void* partial, void* dproj_w,
              void* dproj_b, int batch, int t_len, int d, int hidden,
              int splits, int bf16, int cbf16, void* stream) {
-  if (batch < 1 || t_len < 1 || d < 1 || d > 4 || hidden < 1 ||
-      hidden + 32 > 1024 || splits < 1 ||
-      (long long)batch * t_len >= (1LL << 31))
+  const int uv = bf16 ? 8 : 4, tpr = hidden / uv;
+  if (batch < 1 || t_len < 1 || d < 1 || d > 4 || hidden < uv || hidden % uv ||
+      tpr > DPROJ_THREADS || splits < 1 || (long long)batch * t_len >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int Q = batch * t_len;
-  const int groups = min(4, 1024 / (hidden + 32));
-  const int threads = groups * (hidden + 32);
-  const size_t smem = (size_t)groups * (hidden + 1) * d * sizeof(float);
-  const int chunk = (Q + splits - 1) / splits;
+  const int Q = batch * t_len, out = (hidden + 1) * d;
+  const int chunk = ((Q + splits - 1) / splits + 3) / 4 * 4;  // 16-byte aligned dy slices
+  const size_t smem = (size_t)(DPROJ_THREADS / tpr) * out * sizeof(float);
   float* part = static_cast<float*>(partial);
   const float* g = static_cast<const float*>(dy);
-#define DPROJ(RT, CT)                                             \
-  ss_dproj_partial_kernel<RT, CT><<<splits, threads, smem, st>>>( \
-      static_cast<const RT*>(hs_top), g, part, Q, d, hidden, chunk, groups)
+#define DPROJ(RT, CT)                                                          \
+  ss_dproj_partial_kernel<RT, CT><<<splits, DPROJ_THREADS, smem, st>>>(        \
+      static_cast<const RT*>(hs_top), g, part, Q, d, hidden, chunk)
   using BF = __nv_bfloat16;
   if (bf16 && cbf16)
     DPROJ(BF, BF);
@@ -181,10 +254,9 @@ int ss_dproj(const void* hs_top, const void* dy, void* partial, void* dproj_w,
   else
     DPROJ(float, float);
 #undef DPROJ
-  const int total = (hidden + 1) * d;
-  lstm_dw_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(
-      part, splits, hidden * d, d, static_cast<float*>(dproj_w),
-      static_cast<float*>(dproj_b));
+  ss_dproj_sum_kernel<<<(out + 7) / 8, 256, 0, st>>>(part, splits, hidden * d, out,
+                                                     static_cast<float*>(dproj_w),
+                                                     static_cast<float*>(dproj_b));
   return (int)cudaGetLastError();
 }
 

@@ -36,16 +36,23 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The f32 transformer encoder's three-pass TF32 products
-// (transformer_f32mma.cuh):
+// The three-pass TF32 products of the f32 transformer encoder
+// (transformer_f32mma.cuh) and the lockstep peer backward (lstm_align.cu):
 //   * tf32_rna: x rounded to TF32 (10 mantissa bits), to nearest, ties away
 //     from zero, as a 32-bit register that mma reads as a .tf32 operand;
+//   * split_tf32: x → (hi, lo) = (tf32(x), tf32(x - hi)), 11 significant
+//     bits each, 22 together;
 //   * mma_tf32: mma.sync m16n8k8, TF32 operands (A four registers, B two),
 //     f32 accumulators in place.
 __device__ __forceinline__ unsigned tf32_rna(float x) {
   unsigned r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {

@@ -177,12 +177,7 @@ const char* transformer_encode_error_string(int code) {
 // The probe build's clock counters (tfm::Part order, tfm::PARTS of them)
 // since the last read, summed over blocks, into out (host memory); zeroes
 // them. Returns cudaGetLastError()-style codes.
-int transformer_encode_probe_read(unsigned long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, tfm::g_probe, sizeof(tfm::g_probe));
-  if (err != cudaSuccess) return (int)err;
-  static const unsigned long long zero[tfm::PARTS] = {};
-  return (int)cudaMemcpyToSymbol(tfm::g_probe, zero, sizeof(tfm::g_probe));
-}
+int transformer_encode_probe_read(unsigned long long* out) { return probe_read(tfm::g_probe, out); }
 #endif
 
 }  // extern "C"

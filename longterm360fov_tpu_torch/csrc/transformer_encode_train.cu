@@ -239,7 +239,7 @@ encode_reverse_kernel(const EncGradParams p, const float* __restrict__ past,
   st.src = RevSrc{&p, layers};
   st.total = layers * REV_BLOCKS * Ring<RKC>::CHUNKS;
   st.ring = ring;
-  Probe pr;
+  Probe pr(g_probe);
   // a dW tile into the partials: dw + i · ldo + j (device memory)
   auto dw_to = [](float* dw, int ldo) {
     return [dw, ldo](int i, int j, float v0, float v1) {
@@ -600,12 +600,7 @@ const char* transformer_encode_train_error_string(int code) {
 // The probe build's clock counters (tfm::Part order, tfm::PARTS of them)
 // since the last read, summed over the blocks of both kernels, into out
 // (host memory); zeroes them. Returns cudaGetLastError()-style codes.
-int transformer_encode_train_probe_read(unsigned long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, tfm::g_probe, sizeof(tfm::g_probe));
-  if (err != cudaSuccess) return (int)err;
-  static const unsigned long long zero[tfm::PARTS] = {};
-  return (int)cudaMemcpyToSymbol(tfm::g_probe, zero, sizeof(tfm::g_probe));
-}
+int transformer_encode_train_probe_read(unsigned long long* out) { return probe_read(tfm::g_probe, out); }
 #endif
 
 }  // extern "C"

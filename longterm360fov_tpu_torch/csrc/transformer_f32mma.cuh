@@ -62,12 +62,6 @@ namespace tfm {
 
 static_assert(THREADS == 256 && ROWS == 64 && H == 128, "the f32 products tile 64 x 128 over 8 warps");
 
-// x → (hi, lo) TF32 halves of the three-pass products
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
 // the ring of split weight chunks of KC k-columns
 template <int KC>
 struct Ring {
@@ -432,7 +426,7 @@ __device__ __forceinline__ void encode_rows_tf32(const EncParams& p, const float
   st.src = FwdSrc{&p};
   st.total = layers * FWD_BLOCKS * Ring<FKC>::CHUNKS;
   st.ring = vb + ROWS * LDX;
-  Probe pr;
+  Probe pr(g_probe);
   const int b0 = blockIdx.x * seqs;
   const int n_tok = min(seqs, batch - b0) * t;  // valid token rows
   const size_t tok0 = (size_t)b0 * t;

@@ -287,7 +287,7 @@ __device__ __forceinline__ void encode_rows_mma(const EncParams& p, const float*
   bf16* ub = reinterpret_cast<bf16*>(qb);
   bf16* hb = reinterpret_cast<bf16*>(vb + ROWS * LDX);
   WeightStream ws{&p, layers * LAYER_CHUNKS, hb + ROWS * LDB, 0};
-  Probe pr;
+  Probe pr(g_probe);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b0 = blockIdx.x * seqs;
   const int n_tok = min(seqs, batch - b0) * t;  // valid token rows

@@ -1,10 +1,12 @@
 // The probe build of the transformer encoder's kernels (-DTFM_PROBE):
-// in-kernel clock64 counters. Thread 0 of every block adds the clocks it
-// spends in each part of its work (Part) to g_probe; the library's
-// *_probe_read entry point copies the sums out and zeroes them. Without
-// TFM_PROBE a Probe is empty and its marks compile to nothing.
+// probe.cuh's in-kernel clock64 counters. Thread 0 of every block adds the
+// clocks it spends in each part of its work (Part) to g_probe; the
+// library's *_probe_read entry point copies the sums out and zeroes them.
+// Without TFM_PROBE the marks compile to nothing.
 
 #pragma once
+
+#include "probe.cuh"
 
 namespace tfm {
 
@@ -27,28 +29,11 @@ enum Part {
   PARTS
 };
 
-#ifdef TFM_PROBE
 __device__ unsigned long long g_probe[PARTS];
-__device__ __forceinline__ long long probe_clock() {
-#if defined(__CUDA_ARCH__)
-  return clock64();
+#ifdef TFM_PROBE
+using Probe = ClockProbe<true>;
 #else
-  return 0;
-#endif
-}
-struct Probe {
-  long long t;
-  __device__ Probe() : t(probe_clock()) {}
-  __device__ __forceinline__ void mark(int part) {
-    const long long now = probe_clock();
-    if (threadIdx.x == 0) atomicAdd(&g_probe[part], (unsigned long long)(now - t));
-    t = now;
-  }
-};
-#else
-struct Probe {
-  __device__ __forceinline__ void mark(int) {}
-};
+using Probe = ClockProbe<false>;
 #endif
 
 __device__ __forceinline__ void sync_probe(Probe& pr) {

@@ -68,7 +68,6 @@ from .lstm_train import (
     dw_splits,
     dw_zld,
     in_compute,
-    kernel_rows as _lstm_kernel_rows,
     widen,
 )
 
@@ -84,7 +83,7 @@ __all__ = [
 ]
 
 _SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use (227 KB)
-_TR, _TJ = 4, 4  # rows and units per thread
+_TR = 4  # rows per thread of the peer forward
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +251,31 @@ def _check_peer(peer_params: LSTMParams, pxs, *tensors):
     return rows, t_len, d, c_dim
 
 
+PEER_BWD_CTX = (32, 64, 96, 128)  # the peer backward's ctx_dim (an instance of its tiles for each)
+
+
+def peer_bwd_warps(rows: int, c_dim: int, d: int, fits: Sequence[int], n_sm: int) -> int:
+    """Warps a block of the peer backward (16 peer rows each; one block an
+    SM, which its shared memory and registers fill), of ``fits``: the counts
+    from 4 to 8 whose block fits shared memory (the library's
+    ``peer_bwd_smem``). The fewest waves times warps, the card's time for
+    the rows at one block an SM, and of those the most warps (the fewest
+    passes over the weights): 28,672 rows on 132 SMs take 7 warps, 256
+    blocks in two waves. Raises for shapes the kernel does not take."""
+    if c_dim not in PEER_BWD_CTX:
+        raise ValueError(f"the peer backward takes ctx_dim in {PEER_BWD_CTX}, got {c_dim}")
+    if not 1 <= d <= 8:
+        raise ValueError(f"the peer backward takes 1 <= d <= 8 window features, got {d}")
+    if not fits:
+        raise ValueError(f"no peer backward block of 4 to 8 warps fits shared memory at ctx_dim={c_dim}")
+
+    def cost(w):
+        blocks = -(-rows // (16 * w))
+        return -(-blocks // n_sm) * w, -w
+
+    return min(fits, key=cost)
+
+
 def _pwt_spec(pwt, rows):
     """pwt's expected (B, K), from its own shape, when B·K is the peer rows."""
     batch, k = pwt.shape
@@ -350,33 +374,39 @@ def peer_bwd(peer_params: LSTMParams, pxs, pwt, php, pcp, dctx, compute_dtype=to
     rows, t_len, _ = pxs.shape
     c_dim = peer_params.w.shape[1] // 4
     rdt = php.dtype
-    _, _, d, _ = _check_peer(
-        peer_params, pxs, _pwt_spec(pwt, rows), (php, (rows, t_len, c_dim), RESIDUAL_DTYPES),
-        (pcp, (rows, t_len, c_dim), (rdt,)), (dctx, (pwt.shape[0], t_len, c_dim), (torch.float32,)))
-    batch, k = pwt.shape
+    _check_peer(peer_params, pxs, _pwt_spec(pwt, rows), (php, (rows, t_len, c_dim), RESIDUAL_DTYPES),
+                (pcp, (rows, t_len, c_dim), (rdt,)), (dctx, (pwt.shape[0], t_len, c_dim), (torch.float32,)))
     check_compute(compute_dtype)
     if pxs.device.type == "cpu":
         return _peer_bwd_reference(peer_params, pxs, pwt, php, pcp, dctx, compute_dtype)
-    r = _lstm_kernel_rows(c_dim, 1, d)
-    while r >= _TR and 4 * r * ((d + c_dim) + 6 * c_dim + c_dim // _TJ) > _SMEM_LIMIT:
-        r //= 2
-    if r < _TR:
-        raise ValueError(f"ctx_dim={c_dim}: the peer backward's state does not fit shared memory")
-    dev = pxs.device
-    wp, wpt = in_compute([peer_params.w, peer_params.w[d:].t()], compute_dtype)
+    out = launch_peer_bwd(_library(), peer_params, pxs, pwt, php, pcp, dctx, compute_dtype)
+    count_launch(peer_bwd, compute_dtype)
+    return out
+
+
+def launch_peer_bwd(lib, peer_params: LSTMParams, pxs, pwt, php, pcp, dctx, compute_dtype):
+    """:func:`peer_bwd`'s launch on CUDA tensors through ``lib`` (``bind``'s:
+    the library, or a probe or one-pass build of it); checked inputs."""
+    rows, t_len, d = pxs.shape
+    c_dim = peer_params.w.shape[1] // 4
+    batch, k = pwt.shape
+    dev, wp = pxs.device, peer_params.w.contiguous()
+    rbf, cbf = int(php.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16)
+    fits = [w for w in range(4, 9) if 0 < lib.peer_bwd_smem(c_dim, w, rbf, cbf) <= _SMEM_LIMIT]
+    warps = peer_bwd_warps(rows, c_dim, d, fits, _n_sm(dev))
+    wstream = torch.empty(lib.peer_bwd_stream_bytes(c_dim, cbf), dtype=torch.uint8, device=dev)
     dpgates = torch.empty((rows, t_len, 4 * c_dim), device=dev)
     dpxs = torch.empty((rows, t_len, d), device=dev)
     dpwt = torch.empty((batch, k), device=dev)
-    _check_card([pxs, pwt, wp, wpt, peer_params.b, php, pcp, dctx, dpgates, dpxs, dpwt])
+    _check_card([pxs, pwt, wp, wstream, peer_params.b, php, pcp, dctx, dpgates, dpxs, dpwt])
     with torch.cuda.device(dev):
-        err = _library().align_peer_bwd(
-            pxs.data_ptr(), pwt.data_ptr(), wp.data_ptr(), wpt.data_ptr(),
+        err = lib.align_peer_bwd(
+            pxs.data_ptr(), pwt.data_ptr(), wp.data_ptr(), wstream.data_ptr(),
             peer_params.b.data_ptr(), php.data_ptr(), pcp.data_ptr(), dctx.data_ptr(),
-            dpgates.data_ptr(), dpxs.data_ptr(), dpwt.data_ptr(), batch, k, t_len, d, c_dim, r,
-            int(rdt == torch.bfloat16), int(compute_dtype == torch.bfloat16), _stream(),
+            dpgates.data_ptr(), dpxs.data_ptr(), dpwt.data_ptr(), batch, k, t_len, d, c_dim, warps,
+            rbf, cbf, _stream(),
         )
     _raise_on(err, "peer_bwd")
-    count_launch(peer_bwd, compute_dtype)
     return dpgates, dpxs, dpwt
 
 
@@ -487,18 +517,27 @@ peer_dw.launches = peer_dw.launches_bf16 = 0
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The kernels' library, built at first use and loaded once."""
-    lib = _build.load("lstm_align")
+    return bind(_build.load("lstm_align"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/lstm_align.cu``: the library, or a probe
+    or one-pass build of it) with its entry points typed."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
     lib.align_peer_fwd.argtypes = [vp] * 7 + [i32] * 8 + [vp]
     lib.align_dec_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 9 + [vp]
     lib.align_dec_bwd.argtypes = [vp, vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 9 + [vp]
     lib.align_peer_bwd.argtypes = [vp] * 11 + [i32] * 8 + [vp]
+    lib.peer_bwd_smem.argtypes = [i32] * 4
+    lib.peer_bwd_stream_bytes.argtypes = [i32] * 2
     lib.align_dec_dw.argtypes = [vp] * 7 + [arr] * 4 + [vp, vp, arr, arr] + [i32] * 11 + [vp]
     lib.align_peer_dw.argtypes = [vp] * 8 + [i32] * 8 + [vp]
     for f in (lib.align_peer_fwd, lib.align_dec_fwd, lib.align_dec_bwd, lib.align_peer_bwd,
-              lib.align_dec_dw, lib.align_peer_dw):
+              lib.align_dec_dw, lib.align_peer_dw, lib.peer_bwd_smem, lib.peer_bwd_stream_bytes):
         f.restype = i32
+    lib.lstm_align_probe_read.argtypes = [vp]
+    lib.lstm_align_probe_read.restype = i32
     lib.lstm_align_error_string.argtypes = [i32]
     lib.lstm_align_error_string.restype = ctypes.c_char_p
     return lib

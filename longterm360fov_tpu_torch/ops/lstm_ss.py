@@ -45,6 +45,7 @@ and ``.launches_bf16`` (bf16 compute).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import List, Optional, Sequence, Tuple
@@ -329,7 +330,11 @@ def _raise_on(err: int, name: str):
 
 
 def _stream():
-    return torch.cuda.current_stream().cuda_stream
+    # the current device's current stream as its raw handle: what
+    # torch.cuda.current_stream().cuda_stream gives, without building a
+    # Stream object (4.6 µs a call on the card's host, the dproj call's
+    # largest host cost after its launches)
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def ss_fwd(
@@ -552,25 +557,35 @@ def ss_dproj(hs_top: torch.Tensor, dy: torch.Tensor,
     check_compute(compute_dtype)
     if dy.device.type == "cpu":
         return _dproj_reference(hs_top, dy, compute_dtype)
-    if not 1 <= d <= 4 or hidden + 32 > 1024 or batch * t_len >= 2**31:
-        raise ValueError(f"the kernel takes 1 <= D <= 4, H <= 992 and B·T < 2^31, got D={d}, "
-                         f"H={hidden}, B·T={batch * t_len}")
     dev = dy.device
-    splits = max(1, min(2 * _n_sm(dev), batch * t_len // 64))
-    partial = torch.empty((splits, hidden + 1, d), device=dev)
-    dpw = torch.empty((hidden, d), device=dev)
-    dpb = torch.empty((d,), device=dev)
-    _check_card([hs_top, dy, partial, dpw, dpb])
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.ss_dproj(
-            hs_top.data_ptr(), dy.data_ptr(), partial.data_ptr(), dpw.data_ptr(), dpb.data_ptr(),
+    splits = dproj_splits(batch * t_len, d, hidden, hs_top.dtype, _n_sm(dev))
+    out = (hidden + 1) * d
+    buf = torch.empty(((splits + 1) * out,), device=dev)  # dproj_w, dproj_b, then the slices' sums
+    dpw, dpb = buf[: hidden * d].view(hidden, d), buf[hidden * d: out]
+    _check_card([hs_top, dy])
+    # the device's context only when it is not current: the call's host work
+    # is most of its time at the training shapes
+    with contextlib.nullcontext() if dev.index in (None, torch.cuda.current_device()) else torch.cuda.device(dev):
+        err = _library().ss_dproj(
+            hs_top.data_ptr(), dy.data_ptr(), buf.data_ptr() + 4 * out, dpw.data_ptr(), dpb.data_ptr(),
             batch, t_len, d, hidden, splits, int(hs_top.dtype == torch.bfloat16),
             int(compute_dtype == torch.bfloat16), _stream(),
         )
     _raise_on(err, "ss_dproj")
     count_launch(ss_dproj, compute_dtype)
     return dpw, dpb
+
+
+def dproj_splits(rows: int, d: int, hidden: int, residual_dtype: torch.dtype, n_sm: int) -> int:
+    """Slices of the dproj reduction's rows, a block each: four blocks an SM,
+    each slice at least 64 rows. Raises for shapes the kernel does not take
+    (1 <= d <= 4; a row of h_top is 16-byte pieces, a thread each, at most
+    the block's 256; B·T < 2^31)."""
+    per = 16 // (2 if residual_dtype == torch.bfloat16 else 4)  # units a 16-byte piece
+    if not 1 <= d <= 4 or hidden % per or not per <= hidden <= 256 * per or rows >= 2**31:
+        raise ValueError(f"the dproj kernel takes 1 <= D <= 4, H a multiple of {per} up to {256 * per} "
+                         f"and B·T < 2^31, got D={d}, H={hidden}, B·T={rows}")
+    return max(1, min(4 * n_sm, rows // 64))
 
 
 ss_dproj.launches = ss_dproj.launches_bf16 = 0

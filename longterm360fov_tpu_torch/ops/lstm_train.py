@@ -361,6 +361,7 @@ def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
+@functools.cache
 def _n_sm(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 

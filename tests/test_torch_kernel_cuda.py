@@ -806,6 +806,106 @@ def test_aligned_backward_is_deterministic():
         assert torch.equal(x, y)
 
 
+# ----------------------------------------- the peer backward and dproj on the tensor cores
+# The peer backward's products run on mma.sync (three-pass TF32 in f32, bf16
+# in bf16) in blocks of 16-row warps, and dproj on 16-byte loads in slices:
+# both at shapes whose rows are not a multiple of a block or a slice, at
+# every width the peer backward takes, each held to the gates above ("rec",
+# "sum"; dpwt and dproj_b unrounded sums).
+
+
+def _peer_bwd_case(batch, k, t, c, rd, seed):
+    """A peer cell of width C, windows, mask weights (row 0 all masked), the
+    plain forward's residuals in ``rd`` and an upstream dctx."""
+    rng = np.random.default_rng(seed)
+    peer = _stack(rng, 3, 1, hidden=c)[0]
+    pxs = _cuda(rng, (batch * k, t, 3), 0.5)
+    m = (rng.random((batch, k)) < 0.6).astype(np.float32)
+    m[0] = 0.0
+    pwt = torch.tensor(m / np.maximum(m.sum(1, keepdims=True), 1.0), device="cuda")
+    php, pcp, _ = lstm_align._peer_fwd_reference(peer, pxs, pwt, rd)
+    return peer, pxs, pwt, php, pcp, _cuda(rng, (batch, t, c), 0.1)
+
+
+@pytest.mark.parametrize("cd", COMPUTE)
+@pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", lstm_align.PEER_BWD_CTX)
+@pytest.mark.parametrize("t", [1, 100])
+@pytest.mark.parametrize("k", [1, 7, 8])
+def test_peer_bwd_matches_plain_at_ragged_rows(k, t, c, rd, cd):
+    args = _peer_bwd_case(67, k, t, c, rd, seed=k + t + c)
+    before = _counts([lstm_align.peer_bwd])
+    out = list(lstm_align.peer_bwd(*args, cd))
+    torch.cuda.synchronize()
+    assert _counts([lstm_align.peer_bwd]) == _one_more(before, cd)
+    _check(out, _plains(cd, lambda x: list(lstm_align._peer_bwd_reference(*args, x))), "rec", cd, unrounded=1)
+
+
+@pytest.mark.parametrize("cd", COMPUTE)
+@pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [64, 96, 128, 160])  # 96 and 160: threads past the last row group idle
+@pytest.mark.parametrize("d", [1, 3, 4])
+def test_dproj_matches_plain_at_ragged_slices(d, h, rd, cd):
+    rng = np.random.default_rng(d + h)
+    for batch, t in ((4099, 30), (257, 1)):
+        hs_top, dy = _cuda(rng, (batch, t, h), 0.5).to(rd), _cuda(rng, (batch, t, d))
+        before = _counts([lstm_ss.ss_dproj])
+        out = list(lstm_ss.ss_dproj(hs_top, dy, cd))
+        assert _counts([lstm_ss.ss_dproj]) == _one_more(before, cd)
+        _check(out, _plains(cd, lambda x: list(lstm_ss._dproj_reference(hs_top, dy, x))), "sum", cd, unrounded=1)
+
+
+@pytest.mark.parametrize("cd", COMPUTE)
+def test_peer_bwd_and_dproj_repeat_bit_equal(cd):
+    """stacked-ss-crossuser-10s's peer rows (B = 4096, K = 7, T = 100) and
+    its decoder's dproj rows: two runs of each give the same bits."""
+    args = _peer_bwd_case(4096, 7, 100, 128, torch.bfloat16, seed=1)
+    first = lstm_align.peer_bwd(*args, cd)
+    assert all(torch.equal(x, y) for x, y in zip(first, lstm_align.peer_bwd(*args, cd)))
+    rng = np.random.default_rng(2)
+    hs_top, dy = _cuda(rng, (4096, 100, 128), 0.5).bfloat16(), _cuda(rng, (4096, 100, 3))
+    first = lstm_ss.ss_dproj(hs_top, dy, cd)
+    assert all(torch.equal(x, y) for x, y in zip(first, lstm_ss.ss_dproj(hs_top, dy, cd)))
+
+
+def test_peer_bwd_one_pass_tf32_build_fails_the_gate():
+    """The f32 peer backward's products are three-pass TF32: a build that
+    drops the two small terms (-DPEER_ONE_PASS, products of 11-bit
+    operands) is held to the same gate, 1e-4 of max|plain|, and fails it
+    where the three-pass kernel passes."""
+    import ctypes
+
+    from longterm360fov_tpu_torch.ops import _build
+
+    args = _peer_bwd_case(67, 7, 100, 128, torch.float32, seed=3)
+    lib = lstm_align.bind(ctypes.CDLL(str(_build.build("lstm_align", ("PEER_ONE_PASS",)).path)))
+    ref = lstm_align._peer_bwd_reference(*args)
+    gap = [((x - y).abs().max() / y.abs().max()).item() for x, y in
+           zip(lstm_align.launch_peer_bwd(lib, *args, torch.float32), ref)]
+    three = [((x - y).abs().max() / y.abs().max()).item() for x, y in zip(lstm_align.peer_bwd(*args), ref)]
+    assert max(three) <= 1e-4 < max(gap)
+
+
+def test_peer_bwd_launch_shape_is_the_kernels():
+    """The library's sizes, from which the wrapper takes its launch: every
+    width the wrapper takes has a block of 4 warps that fits shared memory
+    in every type pair, and a weight stream; at stacked-ss-crossuser-10s's
+    28,672 peer rows the wrapper takes 7 warps a block, but for f32 compute
+    on f32 residuals, whose 7-warp block does not fit (5); widths it does
+    not take are refused."""
+    lib = lstm_align._library()
+    for c in lstm_align.PEER_BWD_CTX:
+        for cd in COMPUTE:
+            assert lib.peer_bwd_stream_bytes(c, int(cd == BF)) > 0
+            for rd in (torch.float32, BF):
+                assert 0 < lib.peer_bwd_smem(c, 4, int(rd == BF), int(cd == BF)) <= 232448
+                fits = [w for w in range(4, 9) if lib.peer_bwd_smem(c, w, int(rd == BF), int(cd == BF)) <= 232448]
+                if c == 128:
+                    assert lstm_align.peer_bwd_warps(28672, c, 3, fits, 132) == (
+                        5 if rd == cd == torch.float32 else 7)
+    assert lib.peer_bwd_smem(160, 4, 1, 0) == -1 and lib.peer_bwd_stream_bytes(160, 0) == -1
+
+
 # ------------------------------------------------------------- conv_resize kernel
 # Against its plain version (the dense einsum, then cuDNN's conv in exact
 # f32): 1e-5 of max|plain|. The kernel sums the resize's two non-zero taps

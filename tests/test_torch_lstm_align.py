@@ -301,6 +301,37 @@ def test_aligned_wrappers_reject_what_the_kernels_do_not_take():
         fused_lstm.peer_rows(8, 3)
 
 
+@pytest.mark.parametrize("fits", [(4, 5, 6, 7, 8), (4, 5, 6, 7), (4, 5, 6), (4,)])
+def test_peer_bwd_launch_shape(fits):
+    """The peer backward's warps a block, of those whose block fits shared
+    memory (on the card: all of 4 to 8 but at ctx_dim 128, where f32
+    compute on f32 residuals fits 6 and on bf16 residuals 7): the grid at
+    stacked-ss-crossuser-10s's 28,672 peer rows fills 132 SMs in whole
+    waves (256 blocks of 7 warps, two waves); tiny grids take the fewest
+    warps; every choice is one that fits."""
+    n_sm = 132
+    for c in lstm_align.PEER_BWD_CTX:
+        for rows in (1, 67 * 7, 4099 * 8, 28672):
+            assert lstm_align.peer_bwd_warps(rows, c, 3, fits, n_sm) in fits
+        assert lstm_align.peer_bwd_warps(1, c, 3, fits, n_sm) == 4
+    full = lstm_align.peer_bwd_warps(28672, 128, 3, fits, n_sm)
+    # 4 warps: 448 blocks, 4 waves (16 warp-waves); 5: 359, 3 (15); 6: 299, 3 (18); 7: 256, 2 (14)
+    assert full == {8: 7, 7: 7, 6: 5, 4: 4}[max(fits)]
+    if full == 7:
+        assert -(-28672 // (16 * 7)) == 256 and -(-256 // n_sm) == 2
+
+
+def test_peer_bwd_rejects_shapes_it_does_not_take():
+    for c in (16, 160, 256):
+        with pytest.raises(ValueError, match="ctx_dim in"):
+            lstm_align.peer_bwd_warps(100, c, 3, (4, 5), 132)
+    for d in (0, 9):
+        with pytest.raises(ValueError, match="window features"):
+            lstm_align.peer_bwd_warps(100, 128, d, (4, 5), 132)
+    with pytest.raises(ValueError, match="fits shared memory"):
+        lstm_align.peer_bwd_warps(100, 128, 3, (), 132)
+
+
 # ------------------------------------------------------- the lockstep serve tier
 
 

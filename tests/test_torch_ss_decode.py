@@ -327,3 +327,23 @@ def test_ss_wrappers_reject_what_the_kernels_do_not_take():
         p = seq2seq.init(torch.Generator().manual_seed(0), tcfg, device="cpu")
         seq2seq.apply_fused_ss(p, tcfg, torch.zeros(2, 5, 3), torch.zeros(2, 6, 3),
                                context=torch.zeros(2, 8))
+
+
+def test_dproj_splits():
+    """dproj's slices: four blocks an SM at the training batch (B·T =
+    122,880 rows on 132 SMs: 528 slices of 233 rows, rounded up to 236 in
+    the kernel), at least 64 rows a slice below it; the widths it takes;
+    shapes it does not take raise."""
+    assert lstm_ss.dproj_splits(4096 * 30, 3, 128, torch.bfloat16, 132) == 528
+    assert lstm_ss.dproj_splits(4096 * 100, 3, 128, torch.float32, 132) == 528
+    assert lstm_ss.dproj_splits(257, 1, 64, torch.float32, 132) == 4
+    assert lstm_ss.dproj_splits(30, 4, 128, torch.bfloat16, 132) == 1
+    # any H of whole 16-byte pieces, up to a thread a piece of the block's 256
+    for h, rdt in ((4, torch.float32), (96, torch.float32), (100, torch.float32), (1024, torch.float32),
+                   (8, torch.bfloat16), (48, torch.bfloat16), (160, torch.bfloat16), (2048, torch.bfloat16)):
+        assert lstm_ss.dproj_splits(1000, 3, h, rdt, 132) == 15
+    for d, h, rdt in ((0, 128, torch.float32), (5, 128, torch.float32), (3, 102, torch.float32),
+                      (3, 12, torch.bfloat16), (3, 100, torch.bfloat16), (3, 1028, torch.float32),
+                      (3, 2056, torch.bfloat16)):
+        with pytest.raises(ValueError, match="dproj kernel takes"):
+            lstm_ss.dproj_splits(1000, d, h, rdt, 132)
