@@ -14,7 +14,8 @@ one line each or more:
    none of which may be 0: the bf16 tier, and the f32 tier and row 11's
    forward and reverse (three-pass TF32); the same for every instance of
    the lockstep peer backward (``align_peer_bwd_kernel``: both products on
-   ``mma.sync``, three-pass TF32 in f32, bf16 in bf16);
+   ``mma.sync``, three-pass TF32 in f32, bf16 in bf16) and the bf16 tiers of
+   the peer context and the encoder (``lstm_mma.cuh``: ``mma.sync`` bf16);
 3. each kernel against its plain PyTorch version at full width (hidden 128),
    at batches that are not a multiple of the kernels' row tiles:
    ``fused_serve`` without and with a static context (C = 128),
@@ -206,7 +207,9 @@ one line each or more:
    at B = 4096 (:func:`drive_bf16_params`: the LSTM cells on the f32
    kernels with f32 gradients and moments, the transformer on plain bf16
    autograd); then each bf16 serving tier alone against its f32 twin, its
-   plain version and cuDNN's or cuBLAS's bf16 call.
+   plain version and cuDNN's or cuBLAS's bf16 call; the peer context (at
+   B = 4096 and 65,536) and the encoder beside their FMA design's times
+   (``BEFORE``), their bounds' share and their bounds on the FMA units.
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -316,13 +319,16 @@ HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
 # pack-and-tensor-core design; row 10b before its tensor-core design (B =
 # 16384, T = 30, L = 2); rows 10 and 11 on the FMA units (B = 16384 and
 # 65,536, and 4096 for row 11); the peer backward (rows 7 / 7b) and dproj
-# (rows 6 / 6b) before their tensor-core and 16-byte-load designs
+# (rows 6 / 6b) before their tensor-core and 16-byte-load designs; the bf16
+# peer context (row 1b, B = 4096 and 65,536) and encoder (row 4b) on the FMA
+# units
 BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_decode_dw": 3.920,
           "ss_decode_dw_bf16": 3.777, "aligned_dec_dw": 20.739, "aligned_dec_dw_bf16": 20.681,
           "aligned_peer_dw": 20.808, "aligned_peer_dw_bf16": 21.833, "fused_encode_tokens_bf16": 19.151,
           "fused_encode_tokens": 23.980, "fused_encode_tokens B=65536": 94.329, "encode_train_fwd": 6.458,
           "encode_train_bwd": 15.915, "aligned_peer_bwd": 53.983, "aligned_peer_bwd_bf16": 47.555,
-          "ss_decode_dproj": 0.073, "ss_decode_dproj_bf16": 0.049}
+          "ss_decode_dproj": 0.073, "ss_decode_dproj_bf16": 0.049, "peer_context_bf16": 19.443,
+          "peer_context_bf16 B=65536": 303.645, "fused_encode_bf16": 11.112}
 DW_NAMES = [n for n in BEFORE if n.rsplit("_bf16", 1)[0].endswith("_dw")]
 # the cell kernel against lstm_cell: one step, exact f32 FMAs in another order
 # (tests/test_fused_lstm.py's bound for the TPU cell)
@@ -1778,7 +1784,8 @@ def peer_bwd_share(label, prof, smi):
           f"{peer / busy:.1%} of it ({smi})", flush=True)
 
 
-def report_redesign(name, smi, t=None, io=None, before=None, fma_bound=None, device=None, extra=""):
+def report_redesign(name, smi, t=None, io=None, before=None, fma_bound=None, device=None, extra="",
+                    no_library="none (another function)"):
     """One redesigned kernel: this run's time (``t``, TIMES' keys; else
     TIMES[name]) beside its time before its design (BEFORE[``before`` or
     name], PERF.md), its bound (from ``io``, bound()'s (work, reads,
@@ -1787,14 +1794,15 @@ def report_redesign(name, smi, t=None, io=None, before=None, fma_bound=None, dev
     ms, or from ``io``: products that moved to the tensor cores), its device
     time and its library's (``device``, {"kernel", "library"}: ms a call
     from torch.profiler, beside the CUDA-event times, which hold the host's
-    work too), and ``extra``."""
+    work too), and ``extra``; ``no_library`` says why a kernel has no
+    library time."""
     t = dict(TIMES[name] if t is None else t)
     if io is not None:
         work, reads, writes = io
         t["bound_ms"], t["bound_by"] = bound(work, reads, writes)
         fma_bound = bound(flop_of(work), reads, writes)[0]
     lib = t.get("library_ms")
-    lib = "none (another function)" if lib is None else f"{lib:.4f} ms ({lib / t['ms']:.2f}x the kernel's time)"
+    lib = no_library if lib is None else f"{lib:.4f} ms ({lib / t['ms']:.2f}x the kernel's time)"
     line = (f"{name}: {t['ms']:.4f} ms (before this design {BEFORE[before or name]} ms, PERF.md), bound "
             f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bound_ms'] / t['ms']:.1%} of the time), library {lib}")
     if fma_bound is not None:
@@ -2035,6 +2043,33 @@ def report_peer_bwd(builds):
                              f"{hmma}")
 
 
+def report_lstm_mma(builds):
+    """The bf16 peer context and encoder (rows 1b, 4b; lstm_mma.cuh): their
+    registers, spills and shared memory (ptxas; the dynamic shared memory of
+    the serving shapes' blocks, from ops.fused_lstm's choosers) and the count
+    of HMMA instructions in their SASS; fails if either has none: their
+    products run on mma.sync."""
+    sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
+                           str(builds["fused_serve"].path)], capture_output=True, text=True, check=True).stdout
+    hmma, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = next((k for k in ("peer_context_kernel", "fused_encode_kernel")
+                       if k in ln and "nv_bfloat16" in ln), None)
+            if fn:
+                hmma[fn] = 0
+        elif fn and "HMMA" in ln:
+            hmma[fn] += 1
+    blocks = {"peer_context_kernel": fused_lstm.peer_tc_rows(128, 7, 3),
+              "fused_encode_kernel": fused_lstm.encode_tc_rows(128, 1, 3)}
+    for name, geo in blocks.items():
+        print(f"{name}<bf16>: {hmma.get(name, 0)} HMMA instructions in its SASS; "
+              f"{json.dumps(ptxas_resources('fused_serve', (name, 'nv_bfloat16')))}, {geo.smem} bytes of dynamic "
+              f"shared memory and {geo.warps} warps a block of {geo.rp} rows at the serving shape", flush=True)
+    if len(hmma) != 2 or not all(hmma.values()):
+        raise AssertionError(f"a bf16 encoder has no HMMA instruction, its products off the tensor cores: {hmma}")
+
+
 def report_dw(smi):
     """One line per dW instance (report_redesign, the library cuBLAS's
     products): with the registers, shared memory and spills of its product
@@ -2127,11 +2162,14 @@ def time_encode_kernel(dev, rows, smi, with_library, cd=F32):
         note = f", vs cuDNN in {str(cd)[6:]} {(out - library().float()).abs().max().item():.3e}"
     ms = in_turns(fns, {"plain": 2, "kernel": 5, "library": 5, "f32_kernel": 5})
     name = "fused_encode" + ("_bf16" if cd == BF else "")
-    record(name, ms, stack_flop(rows, 30, [3], 128), [xs] + tier_reads(ps[0], cd), [out],
-           F32_FLOPS if cd == F32 else BF16_FLOPS)
+    flop, reads = stack_flop(rows, 30, [3], 128), [xs] + tier_reads(ps[0], cd)
+    record(name, ms, flop, reads, [out], F32_FLOPS if cd == F32 else BF16_FLOPS)
     print(f"{name} alone ({rows} rows, L=1, T=30; ms, CUDA events, library cuDNN nn.LSTM, {smi}): "
           f"{json.dumps(ms)}; bound {TIMES[name]['bound_ms']:.3f} ms by {TIMES[name]['bound_by']}; vs plain "
           f"{json.dumps(err)}{note}", flush=True)
+    if cd == BF:  # row 4b on the tensor cores (lstm_mma.cuh)
+        report_redesign(name, smi, fma_bound=bound(flop, reads, [out])[0],
+                        extra=f"; its f32 twin {ms['f32_kernel']:.4f} ms")
 
 
 def check_grouped(cfg, dev, params, rows, n_videos):
@@ -2236,11 +2274,15 @@ def time_peer_context(dev, peer, batch, k, t, smi, with_library, cd=F32):
     ms = in_turns(fns, {"plain": 1, "kernel": 3, "library": 3, "f32_kernel": 3})
     rows = batch * k
     name = "peer_context" + ("_bf16" if cd == BF else "")
-    record(name, ms, stack_flop(rows, t, [3], 128) + 2 * rows * t * 128, [pxs, w] + tier_reads(peer, cd), [out],
-           F32_FLOPS if cd == F32 else BF16_FLOPS)
+    flop, reads = stack_flop(rows, t, [3], 128) + 2 * rows * t * 128, [pxs, w] + tier_reads(peer, cd)
+    record(name, ms, flop, reads, [out], F32_FLOPS if cd == F32 else BF16_FLOPS)
     print(f"{name} alone (B={batch}, K={k}: {rows} peer rows, T={t}; ms, CUDA events, library cuDNN "
           f"nn.LSTM over the peer rows, {smi}): {json.dumps(ms)}; bound {TIMES[name]['bound_ms']:.3f} "
           f"ms by {TIMES[name]['bound_by']}; vs plain {json.dumps(err)}", flush=True)
+    if cd == BF:  # row 1b on the tensor cores (lstm_mma.cuh)
+        report_redesign(name, smi, before=name if with_library else f"{name} B={batch}",
+                        fma_bound=bound(flop, reads, [out])[0], no_library="cuDNN not run at this batch",
+                        extra=f" (B={batch}); its f32 twin {ms['f32_kernel']:.4f} ms")
 
 
 # --------------------------------------------------------------- stacked-ss-crossuser training
@@ -3783,6 +3825,7 @@ def main():
         print(f"build: {name}.cu -DTFM_PROBE (the time split's probe) by nvcc in {b.seconds:.2f} s", flush=True)
     report_tensor_cores(builds)
     report_peer_bwd(builds)
+    report_lstm_mma(builds)
 
     phase("3 kernels vs plain")
     # 3. every kernel against its plain version at full width; the f32

@@ -86,25 +86,38 @@
 //     keeps its registers.
 // The bf16 compute tier (compute_dtype=bfloat16) is the compute type CT of
 // compute_type.cuh, a template parameter of every kernel but the cell's:
-//   * W and proj_w are read as bf16, rounded once per call by the wrapper:
-//     half the bytes of f32 from L2 for the same FMAs;
-//   * every activation that enters a product is rounded where it enters it
-//     (cround in accumulate and in the projection): the staged input x_t,
-//     the stored h of every layer (so the decoder's seed h is the rounded
-//     encoder h), the static context, the first and the fed-back y, the
-//     peers' inputs and h. The shared buffers stay f32: rounding at the
-//     product is the same arithmetic as rounding where the TPU kernel
-//     stages its bf16 buffers, and it leaves the unrounded peer h for
-//     ctx_t = Σ_k w_k · h_k, which the TPU kernel sums in f32 and rounds
-//     only where the decoder stages it (here: where the decoder's product
-//     reads the reloaded f32 ctx_t);
+//   * W and proj_w are read as bf16, rounded once per call by the wrapper;
+//   * every activation that enters a product is rounded where it enters it:
+//     the staged input x_t, the stored h of every layer (so the decoder's
+//     seed h is the rounded encoder h), the static context, the first and
+//     the fed-back y, the peers' inputs and h; the peer context
+//     ctx_t = Σ_k w_k · h_k is summed from the unrounded peer h, as the TPU
+//     kernel sums it in f32, and rounded only where the decoder's product
+//     reads it;
 //   * c, the peers' c, the gate sums, the biases, ctx_t and the written y
 //     stay f32; fused_encode_kernel writes the rounded top-layer h, as the
 //     TPU kernel reads it back from its bf16 buffer.
-// The products still run on the FMA units: the tier changes what is
-// rounded and halves the weight bytes, not the arithmetic rate.
+// Its two encoders, peer_context_kernel<__nv_bfloat16> and
+// fused_encode_kernel<__nv_bfloat16>, run on the tensor cores
+// (lstm_mma.cuh): many independent rows from zero state and no feedback,
+// so a block's layer-step is one [in, h] (rows x k) · W (k x 4H) product on
+// mma.sync m16n8k16 and the cell update on its accumulators. What bounds
+// them on Hopper is then no longer the products (about 2 µs a step of a
+// block of 64 rows at mma.sync's rate) but the cell's exact f32 sigmoids
+// and tanhs on the FMA and MUFU units (about 3 µs; on the card 55 % of a
+// step, the products 30 %) and the recurrence (two barriers a
+// layer-step). The packed bf16 W stays resident in shared memory where it
+// fits beside the block's state (the timed shapes' 144 KB), and streams
+// from L2 every step where it does not. The rounding points map onto the
+// fragments as the writes into the bf16 A buffer: x_t and each layer's new
+// h are rounded as they are stored there, the f32 h of the peer rows is
+// staged apart for ctx_t, and c and the accumulators stay f32 in the
+// lanes. The serve kernel's bf16 instances and the cell kernel keep
+// lstm_layer_step: their products still run on the FMA units, the tier
+// changing what is rounded and halving the weight bytes.
 
 #include "compute_type.cuh"
+#include "lstm_mma.cuh"
 
 #define MAX_LAYERS 8
 #define TR 8  // rows per thread
@@ -119,10 +132,6 @@ struct Weights {
   const CT* proj_w;     // (H, D)
   const float* proj_b;  // (D,)
 };
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 // acc[g][r][j] += sum_k z[k][r0 + r] * W[k][g * H + j0 + j] for k < K.
 // z is k-major (K, R) in shared memory, rounded to CT as it enters the
@@ -422,69 +431,91 @@ __global__ void __launch_bounds__(256)
 // (R = RV·K rows, contiguous from b0·K), so after every step
 // ctx_t[b] = Σ_k pwt[b, k] · h_k,t (k = 0 .. K - 1 in order, from the f32 h,
 // unrounded in the bf16 tier too) is a block-local sum; it is written to ctx
-// (B, T, C) in f32.
+// (B, T, C) in f32. The bf16 tier is lstm_mma.cuh's encoder (wts.w_enc[0]
+// packed, the block's shape in geo); the f32 tier's body follows.
 template <typename CT>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(std::is_same<CT, float>::value ? 256 : 512)
     peer_context_kernel(const float* __restrict__ pxs,
                         const float* __restrict__ pwt, float* __restrict__ ctx,
                         const Weights<CT> wts, int B, int K, int T, int D, int C,
-                        int RV) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int R = RV * K, P = B * K;
-  const int j0 = (tid % (C / TJ)) * TJ;
-  const int r0 = (tid / (C / TJ)) * TR;
-  float* h_s = smem;         // (C, R)
-  float* c_s = h_s + C * R;  // (TR * TJ, nthr)
-  float* x_s = c_s + C * R;  // (D, R)
-  float* w_s = x_s + D * R;  // (R,) pwt of the block's peer rows
-  const long long b0 = (long long)blockIdx.x * RV, row0 = b0 * K;
+                        int RV, const lstm_mma::Geom geo) {
+  if constexpr (!std::is_same<CT, float>::value) {
+    const uint4* w = reinterpret_cast<const uint4*>(wts.w_enc[0]);
+    const long long p0 = (long long)blockIdx.x * RV * K;
+    if (geo.mt == 2)
+      lstm_mma::encoder<2, true>(pxs, pwt, ctx, w, wts.b_enc, p0, B * K, RV * K, T, D, C, 1, K, RV, B, geo);
+    else
+      lstm_mma::encoder<1, true>(pxs, pwt, ctx, w, wts.b_enc, p0, B * K, RV * K, T, D, C, 1, K, RV, B, geo);
+  } else {
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    const int tid = threadIdx.x, nthr = blockDim.x;
+    const int R = RV * K, P = B * K;
+    const int j0 = (tid % (C / TJ)) * TJ;
+    const int r0 = (tid / (C / TJ)) * TR;
+    float* h_s = smem;         // (C, R)
+    float* c_s = h_s + C * R;  // (TR * TJ, nthr)
+    float* x_s = c_s + C * R;  // (D, R)
+    float* w_s = x_s + D * R;  // (R,) pwt of the block's peer rows
+    const long long b0 = (long long)blockIdx.x * RV, row0 = b0 * K;
 
-  for (int i = tid; i < 2 * C * R; i += nthr) h_s[i] = 0.0f;  // h_s, c_s
-  for (int r = tid; r < R; r += nthr) w_s[r] = row0 + r < P ? pwt[row0 + r] : 0.0f;
-  for (int t = 0; t < T; ++t) {
-    load_step(x_s, pxs, row0, P, T, t, D, R, tid, nthr);
-    __syncthreads();
-    lstm_layer_step(x_s, D, h_s, c_s, wts.w_enc[0], wts.b_enc[0], C, R, r0, j0,
-                    tid, nthr);
-    // the next step rewrites h only after its first barrier
-    for (int i = tid; i < RV * C; i += nthr) {
-      const int v = i / C, c = i % C;
-      const long long b = b0 + v;
-      if (b >= B) continue;
-      float s = 0.0f;
-      for (int k = 0; k < K; ++k) s += h_s[c * R + v * K + k] * w_s[v * K + k];
-      ctx[((size_t)b * T + t) * C + c] = s;
+    for (int i = tid; i < 2 * C * R; i += nthr) h_s[i] = 0.0f;  // h_s, c_s
+    for (int r = tid; r < R; r += nthr) w_s[r] = row0 + r < P ? pwt[row0 + r] : 0.0f;
+    for (int t = 0; t < T; ++t) {
+      load_step(x_s, pxs, row0, P, T, t, D, R, tid, nthr);
+      __syncthreads();
+      lstm_layer_step(x_s, D, h_s, c_s, wts.w_enc[0], wts.b_enc[0], C, R, r0, j0,
+                      tid, nthr);
+      // the next step rewrites h only after its first barrier
+      for (int i = tid; i < RV * C; i += nthr) {
+        const int v = i / C, c = i % C;
+        const long long b = b0 + v;
+        if (b >= B) continue;
+        float s = 0.0f;
+        for (int k = 0; k < K; ++k) s += h_s[c * R + v * K + k] * w_s[v * K + k];
+        ctx[((size_t)b * T + t) * C + c] = s;
+      }
     }
   }
 }
 
+// The bf16 tier is lstm_mma.cuh's encoder (every layer's W packed in
+// wts.w_enc[0], one array; the block's shape in geo); the f32 tier's body
+// follows.
 template <typename CT>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(std::is_same<CT, float>::value ? 256 : 512)
     fused_encode_kernel(const float* __restrict__ xs, float* __restrict__ out,
                         const Weights<CT> wts, int B, int T, int D, int H, int L,
-                        int R) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int j0 = (tid % (H / TJ)) * TJ;
-  const int r0 = (tid / (H / TJ)) * TR;
-  const int HR = H * R;
-  float* h_s = smem;          // L x (H, R)
-  float* c_s = h_s + L * HR;  // L x (TR * TJ, nthr)
-  float* x_s = c_s + L * HR;  // (D, R)
-  const long long row0 = (long long)blockIdx.x * R;
+                        int R, const lstm_mma::Geom geo) {
+  if constexpr (!std::is_same<CT, float>::value) {
+    const uint4* w = reinterpret_cast<const uint4*>(wts.w_enc[0]);
+    const long long p0 = (long long)blockIdx.x * geo.rp;
+    if (geo.mt == 2)
+      lstm_mma::encoder<2, false>(xs, nullptr, out, w, wts.b_enc, p0, B, geo.rp, T, D, H, L, 1, 1, B, geo);
+    else
+      lstm_mma::encoder<1, false>(xs, nullptr, out, w, wts.b_enc, p0, B, geo.rp, T, D, H, L, 1, 1, B, geo);
+  } else {
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    const int tid = threadIdx.x, nthr = blockDim.x;
+    const int j0 = (tid % (H / TJ)) * TJ;
+    const int r0 = (tid / (H / TJ)) * TR;
+    const int HR = H * R;
+    float* h_s = smem;          // L x (H, R)
+    float* c_s = h_s + L * HR;  // L x (TR * TJ, nthr)
+    float* x_s = c_s + L * HR;  // (D, R)
+    const long long row0 = (long long)blockIdx.x * R;
 
-  encode(xs, wts.w_enc, wts.b_enc, h_s, c_s, x_s, row0, B, T, D, H, L, R, r0,
-         j0, tid, nthr);
-  // the final top-layer h as the products read it (rounded to CT), row-major:
-  // neighbouring threads write neighbouring units of a row
-  const float* h_top = h_s + (L - 1) * HR;
-  for (int i = tid; i < R * H; i += nthr) {
-    const int r = i / H, k = i % H;
-    const long long row = row0 + r;
-    if (row < B) out[row * H + k] = cround<CT>(h_top[k * R + r]);
+    encode(xs, wts.w_enc, wts.b_enc, h_s, c_s, x_s, row0, B, T, D, H, L, R, r0,
+           j0, tid, nthr);
+    // the final top-layer h, row-major: neighbouring threads write
+    // neighbouring units of a row
+    const float* h_top = h_s + (L - 1) * HR;
+    for (int i = tid; i < R * H; i += nthr) {
+      const int r = i / H, k = i % H;
+      const long long row = row0 + r;
+      if (row < B) out[row * H + k] = h_top[k * R + r];
+    }
   }
 }
 
@@ -511,6 +542,19 @@ static Weights<CT> weights(const void* const* w_enc, const void* const* b_enc,
   w.proj_w = static_cast<const CT*>(proj_w);
   w.proj_b = static_cast<const float*>(proj_b);
   return w;
+}
+
+// The dynamic shared memory of a bf16 encoder block (lstm_mma.cuh): rp rows
+// in tiles of 16·mt, `rows` of them real, `warps` warps, W resident (w_res)
+// or streamed, c in shared memory (c_glob null) or in c_glob; -1 for a shape
+// the kernels do not take.
+static long long mma_smem(bool peer, int rp, int rows, int d, int hidden, int layers, int mt, int warps,
+                          int w_res, const void* c_glob) {
+  if ((mt != 1 && mt != 2) || rp < 16 * mt || rp % (16 * mt) || rows < 1 || rows > rp || warps < 1 ||
+      warps > 16 || hidden < 32 || hidden % 32 || d < 1 || layers < 1 || layers > MAX_LAYERS)
+    return -1;
+  const long long s = lstm_mma::smem_bytes(peer, rp, rows, d, hidden, layers, w_res, c_glob == nullptr);
+  return s > lstm_mma::SMEM_LIMIT ? -1 : s;
 }
 
 // Set the kernel's dynamic shared memory and launch it on (grid, threads).
@@ -579,47 +623,65 @@ int fused_serve_launch(const void* past, const void* ctx, void* out,
 
 // The peer context of the lockstep tier: pxs (batch·n_peers, t_len, d), pwt
 // (batch, n_peers), w (d + ctx_dim, 4·ctx_dim), b (4·ctx_dim,) → ctx (batch,
-// t_len, ctx_dim). rows_v viewers a block: rows_v·n_peers rows (a multiple of
-// 8), (rows_v·n_peers / 8)·(ctx_dim / 4) threads and (2·ctx_dim + d + 1)·
-// rows_v·n_peers floats of dynamic shared memory.
+// t_len, ctx_dim). rows_v viewers a block. f32: rows_v·n_peers rows (a
+// multiple of 8), (rows_v·n_peers / 8)·(ctx_dim / 4) threads and (2·ctx_dim +
+// d + 1)·rows_v·n_peers floats of dynamic shared memory. bf16: w packed
+// (ops/fused_lstm.py pack_weights), the rows padded to rp in tiles of 16·mt,
+// `warps` warps, W resident in shared memory (w_res) or streamed, c in
+// shared memory or, where c_glob is given, in c_glob (grid x rp x ctx_dim
+// floats; lstm_mma.cuh).
 int peer_context_launch(const void* pxs, const void* pwt, void* ctx,
                         const void* w, const void* b, int batch, int n_peers,
                         int t_len, int d, int ctx_dim, int rows_v, int bf16,
+                        int rp, int mt, int warps, int w_res, void* c_glob,
                         void* stream) {
-  const int rows = rows_v * n_peers;
-  if (n_peers < 1 || rows_v < 1 ||
-      bad_shape(batch * n_peers, t_len, d, ctx_dim, 1, rows) ||
+  if (n_peers < 1 || rows_v < 1 || batch < 1 || t_len < 1 ||
       (long long)batch * n_peers * t_len >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
+  const int rows = rows_v * n_peers, grid = (batch + rows_v - 1) / rows_v;
+  if (bf16) {
+    const long long smem = mma_smem(true, rp, rows, d, ctx_dim, 1, mt, warps, w_res, c_glob);
+    if (smem < 0) return (int)cudaErrorInvalidValue;
+    return launch(peer_context_kernel<__nv_bfloat16>, grid, 32 * warps, (size_t)smem, stream,
+                  static_cast<const float*>(pxs), static_cast<const float*>(pwt), static_cast<float*>(ctx),
+                  weights<__nv_bfloat16>(&w, &b, nullptr, nullptr, nullptr, nullptr, 1), batch, n_peers,
+                  t_len, d, ctx_dim, rows_v, lstm_mma::Geom{rp, mt, w_res, static_cast<float*>(c_glob)});
+  }
+  if (bad_shape(batch * n_peers, t_len, d, ctx_dim, 1, rows)) return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)2 * ctx_dim + d + 1) * rows * sizeof(float);
-  const int grid = (batch + rows_v - 1) / rows_v, threads = (rows / TR) * (ctx_dim / TJ);
-#define PEERS(CT)                                                              \
-  launch(peer_context_kernel<CT>, grid, threads, smem, stream,                 \
-         static_cast<const float*>(pxs), static_cast<const float*>(pwt),       \
-         static_cast<float*>(ctx),                                             \
-         weights<CT>(&w, &b, nullptr, nullptr, nullptr, nullptr, 1), batch,    \
-         n_peers, t_len, d, ctx_dim, rows_v)
-  return bf16 ? PEERS(__nv_bfloat16) : PEERS(float);
-#undef PEERS
+  return launch(peer_context_kernel<float>, grid, (rows / TR) * (ctx_dim / TJ), smem, stream,
+                static_cast<const float*>(pxs), static_cast<const float*>(pwt), static_cast<float*>(ctx),
+                weights<float>(&w, &b, nullptr, nullptr, nullptr, nullptr, 1), batch, n_peers, t_len, d,
+                ctx_dim, rows_v, lstm_mma::Geom{});
 }
 
-// (2 * layers * hidden + d) * rows floats of dynamic shared memory; out is
-// (batch, hidden).
+// xs (batch, t_len, d) → out (batch, hidden). f32: w and b `layers` pointers
+// each, `rows` rows a block (a multiple of 8), (2 * layers * hidden + d) *
+// rows floats of dynamic shared memory. bf16: w[0] every layer's W packed in
+// one array (ops/fused_lstm.py pack_weights), `rows` = rp rows a block in
+// tiles of 16·mt, `warps` warps, W resident (w_res) or streamed, c in shared
+// memory or in c_glob (grid x layers x rp x hidden floats; lstm_mma.cuh).
 int fused_encode_launch(const void* xs, void* out, const void* const* w,
                         const void* const* b, int batch, int t_len, int d,
-                        int hidden, int layers, int rows, int bf16,
-                        void* stream) {
-  if (bad_shape(batch, t_len, d, hidden, layers, rows))
-    return (int)cudaErrorInvalidValue;
+                        int hidden, int layers, int rows, int bf16, int mt,
+                        int warps, int w_res, void* c_glob, void* stream) {
+  if (bf16) {
+    const long long smem = batch < 1 || t_len < 1 ? -1
+                           : mma_smem(false, rows, rows, d, hidden, layers, mt, warps, w_res, c_glob);
+    if (smem < 0) return (int)cudaErrorInvalidValue;
+    const int grid = (batch + rows - 1) / rows;
+    Weights<__nv_bfloat16> wts = weights<__nv_bfloat16>(nullptr, b, nullptr, nullptr, nullptr, nullptr, layers);
+    wts.w_enc[0] = static_cast<const __nv_bfloat16*>(w[0]);
+    return launch(fused_encode_kernel<__nv_bfloat16>, grid, 32 * warps, (size_t)smem, stream,
+                  static_cast<const float*>(xs), static_cast<float*>(out), wts, batch, t_len, d, hidden, layers,
+                  rows, lstm_mma::Geom{rows, mt, w_res, static_cast<float*>(c_glob)});
+  }
+  if (bad_shape(batch, t_len, d, hidden, layers, rows)) return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)2 * layers * hidden + d) * rows * sizeof(float);
-  const int grid = (batch + rows - 1) / rows, threads = (rows / TR) * (hidden / TJ);
-#define ENCODE(CT)                                                             \
-  launch(fused_encode_kernel<CT>, grid, threads, smem, stream,                 \
-         static_cast<const float*>(xs), static_cast<float*>(out),              \
-         weights<CT>(w, b, nullptr, nullptr, nullptr, nullptr, layers), batch, \
-         t_len, d, hidden, layers, rows)
-  return bf16 ? ENCODE(__nv_bfloat16) : ENCODE(float);
-#undef ENCODE
+  return launch(fused_encode_kernel<float>, (batch + rows - 1) / rows, (rows / TR) * (hidden / TJ), smem, stream,
+                static_cast<const float*>(xs), static_cast<float*>(out),
+                weights<float>(w, b, nullptr, nullptr, nullptr, nullptr, layers), batch, t_len, d, hidden,
+                layers, rows, lstm_mma::Geom{});
 }
 
 // The decoder alone, in f32: h0, c0 (layers, batch, hidden), y0 (batch, d),
@@ -662,6 +724,10 @@ int lstm_cell_launch(const void* x, const void* h, const void* c, const void* w,
   return bf16 ? CELL(__nv_bfloat16) : CELL(float);
 #undef CELL
 }
+
+// The probe build's sums (-DLSTM_PROBE; LstmPart order, LP_PARTS of them)
+// into out, then zeroed; without LSTM_PROBE, zeros.
+int fused_serve_probe_read(unsigned long long* out) { return probe_read(g_lstm_probe, out); }
 
 const char* fused_serve_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,0 +1,366 @@
+// The bf16 tier's LSTM encoders on the tensor cores (sm_90a): the layer
+// step of peer_context_kernel<__nv_bfloat16> and fused_encode_kernel<
+// __nv_bfloat16> (fused_serve.cu), an LSTM over many independent rows from
+// zero state with no feedback: per step t and layer l,
+//   gates = [in_t, h_l,t-1] @ W_l + b_l;  c = f * c + i * g;  h = o * tanh(c).
+//
+// What bounds it on Hopper (peer context at B = 4096, K = 7, T = 100,
+// C = 128: 28,672 rows; one step of a block of 64 rows):
+//   * the products: 64 x 144 x 512 x 2 = 9.4 MFLOP a step on mma.sync
+//     m16n8k16 (bf16 operands, f32 sums), about 2 µs at its 600-650 TFLOP/s;
+//   * the cell: 8,192 (row, unit) pairs of three sigmoids and two tanhf in
+//     exact f32 (expf, tanhf and an IEEE division, no fast math), some 90
+//     instructions and 10 MUFU operations a pair, about 3 µs of issue; it
+//     stays on the FMA and MUFU units;
+//   * the recurrence: the steps are serial inside a block, two barriers a
+//     layer-step; blocks share nothing.
+// On the card (NVIDIA H100 80GB HBM3, 700 W; scripts/torch_lstm_encode_probe.py,
+// PERF.md) a step of a block takes about 9 µs: the probe build's split is
+// the cell 55 %, the products 30 %, the publish and x staging 14 %. Fewer,
+// wider warps (8 of 32 x 32 tiles) made the cell slower, and two groups of
+// rows with their own barriers did not overlap one's products with the
+// other's cell better than the warps already do.
+// What the design does about it:
+//   * Warp tiles. A tile is 32 rows x 16 units (MT = 2 m16 tiles; 16 rows x
+//     32 units, MT = 1, where a block has only 16 rows) across all four
+//     gates: 16 n8 tiles, 64 f32 accumulators a lane. W's columns are packed
+//     so that a tile's n-tiles are, per unit block of 8, its i, f, g and o
+//     columns: a lane's accumulators hold the four gates of its (row, unit)
+//     pairs, and the cell update runs in registers. A block's tiles
+//     (rows x H / 512 of them) go round its warps (at most 16).
+//   * A operand. z, one row of [x_t (padded to whole k16 steps), h_0, ..,
+//     h_L-1] in bf16 a block row, in shared memory at a row stride of 16
+//     bytes past a multiple of 32 (ldmatrix's eight rows on distinct banks);
+//     layer l's A is the slice [x_t | h_l] or [h_l-1 | h_l], read by
+//     ldsm_x4. The rounding points of the tier are the writes into z: x_t
+//     and every layer's new h are rounded to bf16 as they are stored there,
+//     and the products read nothing else.
+//   * B operand. The wrapper packs W_l (pack_weights in ops/fused_lstm.py)
+//     in bf16 into mma's B fragment order: per k16 step and pair of n-tiles
+//     a lane's 16 bytes {b0, b1 of n-tile 2p, b0, b1 of n-tile 2p + 1},
+//     512 contiguous bytes a warp. Where every layer's packed W fits beside
+//     the block's state (the timed shapes: (16 + 128) x 512 bf16 = 144 KB),
+//     it is copied into shared memory once and stays there: a block reads W
+//     from L2 once, not once a step. Else a lane loads its fragments from
+//     device memory (L2) every step: the streamed route of wider or deeper
+//     encoders, which reads W once a step for every 32 rows (16 at MT = 1).
+//   * The step. Per layer-step each warp runs its tiles: the product, then
+//     the cell on the accumulators with c from its lane-private slots (f32,
+//     in shared memory, or in device memory where it does not fit) and the
+//     new h written to a staging buffer; a barrier; then the block publishes
+//     the staging into z (rounding it), sums the peer context, and stores
+//     the next step's x (its global loads issued before the products);
+//     a barrier.
+//   * The peer context. The staging buffer of peer_context holds the f32 h
+//     of the block's real rows (all K peers of RV viewers; the rows padded
+//     up to whole tiles compute on zeros and are never stored), XOR-swizzled
+//     by row so the lanes' float2 stores fall on distinct banks; ctx_t[v] =
+//     Σ_k w_k · h_k (k = 0 .. K - 1 in order, each product and sum rounded
+//     to nearest, as the plain version computes them) is summed from it.
+//   * fused_encode writes the rounded top-layer h from z.
+
+#pragma once
+
+#include "compute_type.cuh"
+#include "probe.cuh"
+#include "tensor_core.cuh"
+
+// The probe build (-DLSTM_PROBE): thread 0 of every block adds the clock64
+// ticks it spends in each part of its work to g_lstm_probe (probe.cuh's
+// ClockProbe); fused_serve_probe_read copies the sums out and zeroes them.
+enum LstmPart {
+  LP_STAGE,     // the next step's x: its global loads and its stores into z
+  LP_PRODUCTS,  // the tiles' products
+  LP_CELL,      // the cell update on the accumulators, c, h to the staging buffer
+  LP_PUBLISH,   // the staging into z; peer_context: the context sum and its store
+  LP_BARRIERS,  // block barriers
+  LP_PARTS
+};
+__device__ unsigned long long g_lstm_probe[LP_PARTS];
+#ifdef LSTM_PROBE
+using LstmProbe = ClockProbe<true>;
+#else
+using LstmProbe = ClockProbe<false>;
+#endif
+
+__device__ __forceinline__ float sigmoid_f32(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+namespace lstm_mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a Hopper block may use
+
+// A block's shape, chosen by the wrapper (ops/fused_lstm.py encode_tc_rows,
+// peer_tc_rows): rp rows padded to whole tiles of 16·mt rows; W resident in
+// shared memory or streamed; c in shared memory, or in c_glob (grid x layers
+// x rp x H floats) where it does not fit.
+struct Geom {
+  int rp, mt, w_res;
+  float* c_glob;
+};
+
+template <int MT>
+struct Tile {
+  static constexpr int UT = 4 / MT;     // unit blocks of 8 a tile
+  static constexpr int ROWS = 16 * MT;  // rows a tile
+  static constexpr int UNITS = 8 * UT;  // units a tile
+  static constexpr int NP = 2 * UT;     // pairs of n-tiles (4·UT n-tiles: i, f, g, o a unit block)
+};
+
+__host__ __device__ inline int kx_of(int d) { return (d + 15) / 16 * 16; }
+__host__ __device__ inline int ldz_of(int d, int h, int layers) { return kx_of(d) + layers * h + 8; }
+// uint4s of layer l's packed W: (k rows / 16) k-steps x H / 4 pairs x 32 lanes
+__host__ __device__ inline long long w_layer_u4(int l, int d, int h) {
+  return (long long)((l ? h : kx_of(d)) + h) / 16 * (h / 4) * 32;
+}
+__host__ __device__ inline long long w_u4(int d, int h, int layers) {
+  long long n = 0;
+  for (int l = 0; l < layers; ++l) n += w_layer_u4(l, d, h);
+  return n;
+}
+
+// Shared memory of a block, in this order: W (when resident), c (when in
+// shared memory), z, the staging buffer (peer: the f32 h of the `rows` real
+// rows; encode: bf16 rows of H + 8), and the peer weights of the rows.
+__host__ __device__ inline long long smem_bytes(bool peer, int rp, int rows, int d, int h, int layers,
+                                                bool w_res, bool c_smem) {
+  long long s = w_res ? 16 * w_u4(d, h, layers) : 0;
+  s += c_smem ? 4LL * layers * rp * h : 0;
+  s += 2LL * rp * ldz_of(d, h, layers);
+  s += peer ? 4LL * rows * h + (4LL * rows + 15) / 16 * 16 : 2LL * rp * (h + 8);
+  return s;
+}
+
+// The column of h_k in a peer row's f32 staging: bits 3-4 of the unit
+// XOR-ed with the row, so that the 8 rows of a lane group's float2 stores
+// fall on 4 distinct 32-byte bank groups (H % 32 == 0)
+__device__ __forceinline__ int swz(int row, int unit) { return unit ^ ((row & 3) << 3); }
+
+// A global load issued where it stands: volatile, so that the compiler
+// keeps it ahead of the products' asm (the next step's x lands during them)
+__device__ __forceinline__ float ldg_now(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// acc += [za | zb] (the tile's rows, ks_a then ks_b k16 steps) · W_tile:
+// A by ldsm_x4 from z, B as packed (w: the tile's first pair of the first
+// k-step, plus the lane; kstride uint4s a k-step), in shared or device
+// memory (generic loads).
+template <int MT>
+__device__ __forceinline__ void product(float (&acc)[MT][Tile<MT>::UT][4][4], const bf16* za, int ks_a,
+                                        const bf16* zb, int ks_b, const uint4* w, int kstride, int ldz,
+                                        int lane) {
+  using TL = Tile<MT>;
+  const int arow = (lane & 15) * ldz + (lane >> 4) * 8;
+  auto step = [&](const bf16* zp, const uint4* wk) {
+    unsigned a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[mt], zp + mt * 16 * ldz + arow);
+#pragma unroll
+    for (int p0 = 0; p0 < TL::NP; p0 += 4) {  // four pairs of n-tiles at a time: 16 registers of B
+      uint4 b[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) b[p] = wk[(p0 + p) * 32];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int ut = (p0 + p) >> 1, q = 2 * (p & 1);
+          mma_bf16(acc[mt][ut][q], a[mt], b[p].x, b[p].y);
+          mma_bf16(acc[mt][ut][q + 1], a[mt], b[p].z, b[p].w);
+        }
+    }
+  };
+#pragma unroll 2
+  for (int ks = 0; ks < ks_a; ++ks) step(za + ks * 16, w + (size_t)ks * kstride);
+  w += (size_t)ks_a * kstride;
+#pragma unroll 2
+  for (int ks = 0; ks < ks_b; ++ks) step(zb + ks * 16, w + (size_t)ks * kstride);
+}
+
+// The cell update of a tile from its accumulators: the lane's pairs (rows
+// r0 + 16·mt + g and + 8, units u0 + 8·ut + 2t and + 1), c from and to its
+// float4 slots cs[(mt·UT + ut)·32] (e = 0..3: rows g, g, g + 8, g + 8 at
+// units 2t, 2t + 1), the new h handed to put(row, unit, h_unit, h_unit+1).
+template <int MT, typename Put>
+__device__ __forceinline__ void cell(const float (&acc)[MT][Tile<MT>::UT][4][4], const float* __restrict__ bias,
+                                     int H, float4* cs, int r0, int u0, int lane, Put put) {
+  using TL = Tile<MT>;
+  const int g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int ut = 0; ut < TL::UT; ++ut) {
+    const int unit = u0 + 8 * ut + 2 * t4;
+    float2 b[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) b[q] = __ldg(reinterpret_cast<const float2*>(bias + q * H + unit));
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float4* slot = cs + (mt * TL::UT + ut) * 32;
+      const float4 cv = *slot;
+      const float c_old[4] = {cv.x, cv.y, cv.z, cv.w};
+      float c_new[4], h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float bi = (e & 1) ? b[0].y : b[0].x, bf = (e & 1) ? b[1].y : b[1].x;
+        const float bg = (e & 1) ? b[2].y : b[2].x, bo = (e & 1) ? b[3].y : b[3].x;
+        const float i_g = sigmoid_f32(acc[mt][ut][0][e] + bi);
+        const float f_g = sigmoid_f32(acc[mt][ut][1][e] + bf);
+        const float g_g = tanhf(acc[mt][ut][2][e] + bg);
+        const float o_g = sigmoid_f32(acc[mt][ut][3][e] + bo);
+        c_new[e] = f_g * c_old[e] + i_g * g_g;
+        h[e] = o_g * tanhf(c_new[e]);
+      }
+      *slot = make_float4(c_new[0], c_new[1], c_new[2], c_new[3]);
+      const int row = r0 + 16 * mt + g8;
+      put(row, unit, h[0], h[1]);
+      put(row + 8, unit, h[2], h[3]);
+    }
+  }
+}
+
+// The L-layer encoder over T steps for the block's rows, from zero state.
+// PEER: the lockstep peer cells (L = 1, hidden H = C): rows = RV·K real rows
+// of peer rows p = p0 + r (p < nrows), and after every step ctx_t of the
+// block's viewers into out (B, T, C). Else (fused_encode): rows = rp batch
+// rows from p0 (p < nrows), and the rounded top-layer h into out (B, H).
+template <int MT, bool PEER>
+__device__ __forceinline__ void encoder(const float* __restrict__ xs, const float* __restrict__ pwt,
+                                        float* __restrict__ out, const uint4* __restrict__ wg,
+                                        const float* const* bias, long long p0, int nrows, int rows, int T,
+                                        int D, int H, int L, int K, int RV, int B, const Geom& geo) {
+  using TL = Tile<MT>;
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int rp = geo.rp, kx = kx_of(D), ldz = ldz_of(D, H, L);
+  const int bands = H / TL::UNITS, tiles = rp / TL::ROWS * bands;
+  const int kstride = H / 4 * 32;  // uint4s of a k-step of packed W
+  LstmProbe pr(g_lstm_probe);
+
+  char* sp = reinterpret_cast<char*>(smem4);
+  const uint4* w_all = wg;
+  if (geo.w_res) {
+    uint4* ws = reinterpret_cast<uint4*>(sp);
+    const long long n = w_u4(D, H, L);
+    for (long long i = tid; i < n; i += nthr) ws[i] = wg[i];
+    w_all = ws;
+    sp += 16 * n;
+  }
+  float4* cm;
+  if (geo.c_glob) {
+    cm = reinterpret_cast<float4*>(geo.c_glob + (size_t)blockIdx.x * L * rp * H);
+  } else {
+    cm = reinterpret_cast<float4*>(sp);
+    sp += (size_t)4 * L * rp * H;
+  }
+  bf16* z = reinterpret_cast<bf16*>(sp);
+  sp += (size_t)2 * rp * ldz;
+  float* hst = reinterpret_cast<float*>(sp);  // PEER: f32 h of the real rows, swizzled
+  bf16* est = reinterpret_cast<bf16*>(sp);    // else: bf16 h, rows of H + 8
+  const int lde = H + 8;
+  float* wrow = reinterpret_cast<float*>(sp + (size_t)4 * rows * H);  // PEER: w of the rows
+
+  for (int i = tid; i < L * rp * H / 4; i += nthr) cm[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int i = tid; i < rp * ldz / 8; i += nthr) reinterpret_cast<uint4*>(z)[i] = make_uint4(0, 0, 0, 0);
+  if constexpr (PEER)
+    for (int r = tid; r < rows; r += nthr) wrow[r] = p0 + r < nrows ? pwt[p0 + r] : 0.0f;
+  // x_t into z[r][0 .. D): element i of the block's rp x D, 0 past the rows
+  auto x_at = [&](int t, int i) {
+    const int r = i / D, d = i - r * D;
+    return r < rows && p0 + r < nrows ? ldg_now(xs + ((p0 + r) * T + t) * D + d) : 0.0f;
+  };
+  auto x_put = [&](int i, float v) {
+    const int r = i / D;
+    z[r * ldz + (i - r * D)] = __float2bfloat16_rn(v);
+  };
+  __syncthreads();  // z zeroed before x_0 lands in it
+  for (int i = tid; i < rp * D; i += nthr) x_put(i, x_at(0, i));
+  __syncthreads();  // W, z and c in place
+
+  for (int t = 0; t < T; ++t) {
+    // the thread's first element of x_t+1, loaded ahead of the products
+    const float xr = t + 1 < T && tid < rp * D ? x_at(t + 1, tid) : 0.0f;
+    pr.mark(LP_STAGE);
+    for (int l = 0; l < L; ++l) {
+      const bf16* za = z + (l ? kx + (l - 1) * H : 0);
+      const bf16* zb = z + kx + l * H;
+      const uint4* wl = w_all + (l ? w_layer_u4(0, D, H) + (l - 1) * w_layer_u4(1, D, H) : 0);
+      float4* cl = cm + (size_t)l * rp * H / 4 + lane;
+      for (int tau = warp; tau < tiles; tau += nwarps) {
+        const int r0 = tau / bands * TL::ROWS, u0 = tau % bands * TL::UNITS;
+        float acc[MT][TL::UT][4][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int ut = 0; ut < TL::UT; ++ut)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mt][ut][q][e] = 0.0f;
+        product<MT>(acc, za + r0 * ldz, (l ? H : kx) / 16, zb + r0 * ldz, H / 16,
+                    wl + tau % bands * TL::NP * 32 + lane, kstride, ldz, lane);
+        pr.mark(LP_PRODUCTS);
+        float4* cs = cl + (size_t)tau * MT * TL::UT * 32;
+        if constexpr (PEER) {
+          cell<MT>(acc, bias[l], H, cs, r0, u0, lane, [&](int row, int unit, float h0, float h1) {
+            if (row < rows) *reinterpret_cast<float2*>(hst + row * H + swz(row, unit)) = make_float2(h0, h1);
+          });
+        } else {
+          cell<MT>(acc, bias[l], H, cs, r0, u0, lane, [&](int row, int unit, float h0, float h1) {
+            *reinterpret_cast<__nv_bfloat162*>(est + row * lde + unit) = __floats2bfloat162_rn(h0, h1);
+          });
+        }
+        pr.mark(LP_CELL);
+      }
+      __syncthreads();  // every tile of the layer-step read z; the staging is whole
+      pr.mark(LP_BARRIERS);
+      bf16* zh = z + kx + l * H;
+      if constexpr (PEER) {  // a warp a viewer, a lane 4 units: its K rows into z and ctx_t
+        const long long b0 = p0 / K;
+        for (int v = warp; v < RV && b0 + v < B; v += nwarps) {
+          for (int u = 4 * lane; u < H; u += 128) {
+            float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+            for (int k = 0; k < K; ++k) {
+              const int r = v * K + k;
+              const float4 h = *reinterpret_cast<const float4*>(hst + r * H + swz(r, u));
+              const float w = wrow[r];
+              s.x = __fadd_rn(s.x, __fmul_rn(h.x, w));
+              s.y = __fadd_rn(s.y, __fmul_rn(h.y, w));
+              s.z = __fadd_rn(s.z, __fmul_rn(h.z, w));
+              s.w = __fadd_rn(s.w, __fmul_rn(h.w, w));
+              __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(zh + r * ldz + u);
+              dst[0] = __floats2bfloat162_rn(h.x, h.y);
+              dst[1] = __floats2bfloat162_rn(h.z, h.w);
+            }
+            *reinterpret_cast<float4*>(out + ((size_t)(b0 + v) * T + t) * H + u) = s;
+          }
+        }
+      } else {
+        for (int i = tid; i < rp * H / 8; i += nthr) {
+          const int r = i / (H / 8), u = (i % (H / 8)) * 8;
+          *reinterpret_cast<uint4*>(zh + r * ldz + u) = *reinterpret_cast<const uint4*>(est + r * lde + u);
+        }
+      }
+      pr.mark(LP_PUBLISH);
+      if (l == 0 && t + 1 < T) {  // layer 0 has read x_t
+        if (tid < rp * D) x_put(tid, xr);
+        for (int i = tid + nthr; i < rp * D; i += nthr) x_put(i, x_at(t + 1, i));
+        pr.mark(LP_STAGE);
+      }
+      __syncthreads();  // z holds this layer's h (and x_t+1) for the next layer or step
+      pr.mark(LP_BARRIERS);
+    }
+  }
+  if constexpr (!PEER) {  // the rounded top-layer h, row-major
+    const bf16* ztop = z + kx + (L - 1) * H;
+    for (int i = tid; i < rp * H; i += nthr) {
+      const int r = i / H, u = i % H;
+      if (p0 + r < nrows) out[(p0 + r) * H + u] = __bfloat162float(ztop[r * ldz + u]);
+    }
+  }
+}
+
+}  // namespace lstm_mma

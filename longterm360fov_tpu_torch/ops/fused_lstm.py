@@ -30,7 +30,10 @@ bf16 (a ``--bf16`` model) are widened to f32 for the f32 tier, which is
 exact, as JAX's f32 dot widens them.
 
 The kernels live in ``csrc/fused_serve.cu``, whose header says what bounds
-them on Hopper and what their design does about that. Each wrapper runs its
+them on Hopper and what their design does about that; the bf16 tiers of
+``peer_context`` and ``fused_encode`` run on the tensor cores
+(``csrc/lstm_mma.cuh``), their W packed once a call by :func:`pack_weights`
+and their blocks chosen by :func:`peer_tc_rows` and :func:`encode_tc_rows`. Each wrapper runs its
 plain version (:func:`fused_serve_reference`, :func:`peer_context_reference`,
 :func:`fused_encode_reference`, :func:`fused_decode_reference`, and
 ``models.cell.lstm_cell`` for the cell) on CPU tensors, and launches its
@@ -48,7 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -63,6 +66,9 @@ __all__ = [
     "peer_context",
     "peer_context_reference",
     "peer_rows",
+    "peer_tc_rows",
+    "encode_tc_rows",
+    "pack_weights",
     "fused_encode",
     "fused_encode_reference",
     "fused_decode",
@@ -400,6 +406,139 @@ def peer_rows(ctx_dim: int, n_peers: int, *, tile_rows: int = _TR) -> int:
     return rv
 
 
+class TcGeom(NamedTuple):
+    """A block of the bf16 encoders on the tensor cores
+    (``csrc/lstm_mma.cuh``): ``rows_v`` viewers (the peer context; the
+    encoder: 0), ``rp`` rows in warp tiles of 16·``mt`` rows x 32 / ``mt``
+    units, ``warps`` warps, the packed W resident in shared memory (``w_res``) or
+    streamed from L2, c in shared memory (``c_smem``) or in device memory,
+    and the block's dynamic shared memory in bytes."""
+    rows_v: int
+    rp: int
+    mt: int
+    warps: int
+    w_res: bool
+    c_smem: bool
+    smem: int
+
+
+_TC_MAX_WARPS = 16  # the bf16 encoders' __launch_bounds__(512): 128 registers a thread
+_TC_MAX_ROWS = 256  # rows a block
+
+
+def _tc_smem(peer: bool, rp: int, rows: int, d: int, hidden: int, layers: int, w_res: bool, c_smem: bool) -> int:
+    """``lstm_mma::smem_bytes``: W (when resident), c (when in shared
+    memory), z (bf16 [x padded to k16, h of every layer] a row, 8 more), and
+    the staging (the peer context: f32 h of the ``rows`` real rows and their
+    weights; the encoder: bf16 rows of H + 8)."""
+    kx = -(-d // 16) * 16
+    w = sum(((kx if l == 0 else hidden) + hidden) * 8 * hidden for l in range(layers))
+    s = (w if w_res else 0) + (4 * layers * rp * hidden if c_smem else 0) + 2 * rp * (kx + layers * hidden + 8)
+    return s + (4 * rows * hidden + -(-4 * rows // 16) * 16 if peer else 2 * rp * (hidden + 8))
+
+
+# the layouts of a block, (W resident, c in shared memory), in the order
+# they are preferred: W read from L2 once a call, not once a step for every
+# 32 rows, outweighs c's rows x H x 8 bytes a layer-step
+_TC_LAYOUTS = ((True, True), (True, False), (False, True), (False, False))
+
+
+def _tc_choose(peer: bool, blocks, d: int, hidden: int, layers: int):
+    """The first of ``blocks`` ((rows_v, rp, real rows), in the order
+    preferred) in the first layout that fits; None if none does."""
+    for w_res, c_smem in _TC_LAYOUTS:
+        for rows_v, rp, rows in blocks:
+            smem = _tc_smem(peer, rp, rows, d, hidden, layers, w_res, c_smem)
+            if smem <= _SMEM_LIMIT:
+                mt = 2 if rp % 32 == 0 else 1
+                tiles = rp * hidden // 512
+                rounds = -(-tiles // _TC_MAX_WARPS)  # tiles a warp: the fewest warps that take them in as few
+                return TcGeom(rows_v, rp, mt, -(-tiles // rounds), w_res, c_smem, smem)
+    return None
+
+
+def _tc_top(hidden: int) -> int:
+    """Rows a block aims at: 64, and up to 256 where H < 128, so that a
+    block has about 16 warp tiles of 512 (row, unit) pairs."""
+    return min(_TC_MAX_ROWS, max(64, 8192 // hidden))
+
+
+def encode_tc_rows(hidden: int, layers: int, d: int) -> TcGeom:
+    """The block of the bf16 encoder on the tensor cores: in the first
+    layout that fits (``_TC_LAYOUTS``), the most rows, a power of two from
+    :func:`_tc_top` down to 16. Raises for shapes the kernel does not take."""
+    if hidden < 32 or hidden % 32:
+        raise ValueError(f"the kernel needs hidden % 32 == 0, got {hidden}")
+    if not 1 <= layers <= MAX_LAYERS:
+        raise ValueError(f"the kernel takes 1..{MAX_LAYERS} layers, got {layers}")
+    rps = [rp for rp in (256, 128, 64, 32, 16) if rp <= _tc_top(hidden)]
+    geo = _tc_choose(False, [(0, rp, rp) for rp in rps], d, hidden, layers)
+    if geo is None:
+        raise ValueError(
+            f"d={d}, hidden={hidden}, layers={layers}: the bf16 encoder's block of 16 rows keeps [x, h of every "
+            f"layer] and a staging row in bf16, (ceil(d / 16)·16 + (layers + 1)·hidden + 8)·32 bytes, more than "
+            f"{_SMEM_LIMIT} bytes of shared memory"
+        )
+    return geo
+
+
+def peer_tc_rows(ctx_dim: int, n_peers: int, d: int) -> TcGeom:
+    """The block of the bf16 peer context on the tensor cores: all K peers of
+    ``rows_v`` viewers, padded up to whole tiles; in the first layout that
+    fits (``_TC_LAYOUTS``), the most viewers (up to :func:`_tc_top` rows),
+    32-row tiles before 16-row ones. Raises for shapes the kernel does not
+    take: above 256 peers, or where one viewer's block does not fit."""
+    if ctx_dim < 32 or ctx_dim % 32:
+        raise ValueError(f"the peer kernels need ctx_dim % 32 == 0, got {ctx_dim}")
+    if not 1 <= n_peers <= _TC_MAX_ROWS:
+        raise ValueError(f"the bf16 peer context holds all K peers of a viewer in one block of at most "
+                         f"{_TC_MAX_ROWS} rows: K = {n_peers} peers is more than it takes")
+    blocks = [(rv, -(-rv * n_peers // tile) * tile, rv * n_peers)
+              for rv in range(max(1, _tc_top(ctx_dim) // n_peers), 0, -1) for tile in (32, 16)]
+    geo = _tc_choose(True, blocks, d, ctx_dim, 1)
+    if geo is None:
+        raise ValueError(
+            f"d={d}, ctx_dim={ctx_dim}: one viewer's K = {n_peers} peers do not fit the bf16 peer context's "
+            f"block of {_SMEM_LIMIT} bytes of shared memory"
+        )
+    return geo
+
+
+@functools.cache
+def _pack_index(k_rows: int, hidden: int, device: torch.device) -> torch.Tensor:
+    """Where each element of one layer's packed W comes from: flat indices
+    into its (k_rows, 4H) W (k_rows a multiple of 16), in the order
+    ``csrc/lstm_mma.cuh`` reads it. mma.sync m16n8k16's B fragment of lane
+    (g, t) = (lane // 4, lane % 4) is b0 = W[2t, 2t + 1] and b1 = W[2t + 8,
+    2t + 9] of the k16 step at column g of the n8 tile; packed n-tile j holds
+    gate j % 4's columns of unit block j // 4 (i, f, g, o of 8 units in a
+    row). Per k16 step, pair p of n-tiles and lane: 8 bf16 {b0, b1 of tile
+    2p, b0, b1 of tile 2p + 1}, 16 bytes."""
+    ks = torch.arange(k_rows // 16).view(-1, 1, 1, 1)
+    pair = torch.arange(hidden // 4).view(1, -1, 1, 1)
+    lane = torch.arange(32).view(1, 1, -1, 1)
+    e = torch.arange(8).view(1, 1, 1, -1)
+    k = 16 * ks + 2 * (lane % 4) + (e & 1) + 8 * ((e >> 1) & 1)
+    j = 2 * pair + (e >> 2)
+    col = (j % 4) * hidden + 8 * (j // 4) + lane // 4
+    return (k * 4 * hidden + col).reshape(-1).to(device)
+
+
+def pack_weights(params: Sequence[LSTMParams], d: int) -> torch.Tensor:
+    """Every layer's W, bf16, in the tensor-core encoders' B layout
+    (:func:`_pack_index`), one flat array, layer after layer; layer 0's
+    input rows padded with zero rows to a whole k16 step."""
+    hidden = params[0].w.shape[1] // 4
+    kx = -(-d // 16) * 16
+    out = []
+    for l, p in enumerate(params):
+        w = p.w.to(torch.bfloat16)
+        if l == 0:
+            w = torch.cat([w[:d], w.new_zeros((kx - d, 4 * hidden)), w[d:]])
+        out.append(w.reshape(-1)[_pack_index(w.shape[0], hidden, w.device)])
+    return torch.cat(out)
+
+
 def peer_context(peer_params: LSTMParams, peer_xs: torch.Tensor,
                  peer_w: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
     """The lockstep tier's peer encoders in one kernel launch: the shared
@@ -417,19 +556,37 @@ def peer_context(peer_params: LSTMParams, peer_xs: torch.Tensor,
     (peer_params,), peer_xs, peer_w = _in_tier([peer_params], compute_dtype), _f32(peer_xs), _f32(peer_w)
     if not _on_card(peer_xs, [peer_xs, peer_w, *peer_params], "peer_context"):
         return peer_context_reference(peer_params, peer_xs, peer_w, compute_dtype)
-    rv = peer_rows(c, k)
+    out = launch_peer_context(_library(), peer_params, peer_xs, peer_w, compute_dtype)
+    count_launch(peer_context, compute_dtype)
+    return out
+
+
+def launch_peer_context(lib, peer_params: LSTMParams, peer_xs, peer_w, compute_dtype) -> torch.Tensor:
+    """Launch the peer-context kernel of ``lib`` (a build of
+    ``csrc/fused_serve.cu``: the kernels' own, or a probe build) on checked
+    CUDA tensors of the tier → ctx (B, T, C); not counted. The bf16 tier
+    packs W (:func:`pack_weights`) and takes its block from
+    :func:`peer_tc_rows`, the f32 tier from :func:`peer_rows`."""
+    batch, k, t_len, d = peer_xs.shape
+    c = peer_params.w.shape[1] // 4
     if batch * k * t_len >= 2**31:
         raise ValueError(f"B·K·T = {batch * k * t_len} does not fit the kernel's 32-bit row index")
     out = torch.empty((batch, t_len, c), device=peer_xs.device, dtype=torch.float32)
+    w, c_glob = peer_params.w, None
+    if compute_dtype == torch.bfloat16:
+        geo = peer_tc_rows(c, k, d)
+        w = pack_weights([peer_params], d)
+        if not geo.c_smem:
+            c_glob = torch.empty(-(-batch // geo.rows_v) * geo.rp * c, device=peer_xs.device)
+    else:
+        geo = TcGeom(peer_rows(c, k), 0, 0, 0, False, False, 0)
     with torch.cuda.device(peer_xs.device):
-        err = _library().peer_context_launch(
-            peer_xs.data_ptr(), peer_w.data_ptr(), out.data_ptr(),
-            peer_params.w.data_ptr(), peer_params.b.data_ptr(),
-            batch, k, t_len, d, c, rv, int(compute_dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+        err = lib.peer_context_launch(
+            peer_xs.data_ptr(), peer_w.data_ptr(), out.data_ptr(), w.data_ptr(), peer_params.b.data_ptr(),
+            batch, k, t_len, d, c, geo.rows_v, int(compute_dtype == torch.bfloat16), geo.rp, geo.mt, geo.warps,
+            int(geo.w_res), None if c_glob is None else c_glob.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "peer_context")
-    count_launch(peer_context, compute_dtype)
     return out
 
 
@@ -507,17 +664,34 @@ def fused_encode(
     params, xs = _in_tier(params, compute_dtype), _f32(xs)
     if not _on_card(xs, [xs, *[t for p in params for t in p]], "fused_encode"):
         return fused_encode_reference(params, xs, compute_dtype)
-    rows = kernel_rows(hidden, layers, d)
+    out = launch_encode(_library(), params, xs, compute_dtype)
+    count_launch(fused_encode, compute_dtype)
+    return out
+
+
+def launch_encode(lib, params: Sequence[LSTMParams], xs, compute_dtype) -> torch.Tensor:
+    """Launch the encode kernel of ``lib`` (as :func:`launch_peer_context`)
+    on checked CUDA tensors of the tier → the final top-layer h (B, H); not
+    counted. The bf16 tier packs W (:func:`pack_weights`) and takes its block
+    from :func:`encode_tc_rows`, the f32 tier from :func:`kernel_rows`."""
+    batch, t_len, d = xs.shape
+    hidden, layers = params[0].w.shape[1] // 4, len(params)
     out = torch.empty((batch, hidden), device=xs.device, dtype=torch.float32)
+    ws, c_glob = [p.w for p in params], None
+    if compute_dtype == torch.bfloat16:
+        geo = encode_tc_rows(hidden, layers, d)
+        ws = [pack_weights(params, d)]
+        if not geo.c_smem:
+            c_glob = torch.empty(-(-batch // geo.rp) * layers * geo.rp * hidden, device=xs.device)
+    else:
+        geo = TcGeom(0, kernel_rows(hidden, layers, d), 0, 0, False, False, 0)
     with torch.cuda.device(xs.device):
-        err = _library().fused_encode_launch(
-            xs.data_ptr(), out.data_ptr(),
-            _ptrs([p.w for p in params]), _ptrs([p.b for p in params]),
-            batch, t_len, d, hidden, layers, rows, int(compute_dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+        err = lib.fused_encode_launch(
+            xs.data_ptr(), out.data_ptr(), _ptrs(ws), _ptrs([p.b for p in params]),
+            batch, t_len, d, hidden, layers, geo.rp, int(compute_dtype == torch.bfloat16), geo.mt, geo.warps,
+            int(geo.w_res), None if c_glob is None else c_glob.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "fused_encode")
-    count_launch(fused_encode, compute_dtype)
     return out
 
 
@@ -651,12 +825,17 @@ def _raise_on(err: int, name: str):
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The kernels' library, built at first use and loaded once."""
-    lib = _build.load("fused_serve")
+    return bind(_build.load("fused_serve"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a build of ``csrc/fused_serve.cu`` (the
+    kernels' own, or a probe build) → ``lib``."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
     lib.fused_serve_launch.argtypes = [vp, vp, vp, arr, arr, arr, arr, vp, vp] + [i32] * 10 + [vp]
-    lib.fused_encode_launch.argtypes = [vp, vp, arr, arr] + [i32] * 7 + [vp]
-    lib.peer_context_launch.argtypes = [vp] * 5 + [i32] * 7 + [vp]
+    lib.fused_encode_launch.argtypes = [vp, vp, arr, arr] + [i32] * 10 + [vp, vp]
+    lib.peer_context_launch.argtypes = [vp] * 5 + [i32] * 11 + [vp, vp]
     lib.fused_decode_f32.argtypes = [vp] * 5 + [arr, arr, vp, vp] + [i32] * 7 + [vp]
     lib.lstm_cell_launch.argtypes = [vp] * 7 + [i32] * 5 + [vp]
     for f in (lib.fused_serve_launch, lib.fused_encode_launch, lib.peer_context_launch, lib.fused_decode_f32,
@@ -664,4 +843,6 @@ def _library() -> ctypes.CDLL:
         f.restype = i32
     lib.fused_serve_error_string.argtypes = [i32]
     lib.fused_serve_error_string.restype = ctypes.c_char_p
+    lib.fused_serve_probe_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.fused_serve_probe_read.restype = i32
     return lib

@@ -1,0 +1,215 @@
+"""Probe of the PyTorch port's bf16 LSTM encoders on one NVIDIA card: the
+lockstep tier's peer context (``ops.fused_lstm.peer_context``) and the
+whole-sequence encoder (``ops.fused_lstm.fused_encode``), both in
+``csrc/fused_serve.cu``.
+
+Run from the root of a checkout: ``python3 scripts/torch_lstm_encode_probe.py``.
+``--checkout DIR`` imports the port (and its ``chip_smoke.py``) from another
+checkout instead, such as an unpacked older commit; ``--self-only`` then
+skips the probe build, which that checkout may lack. Prints, on the card it
+finds (it fails without one):
+
+1. the card's name and power limit, each build's registers and spills, and
+   the SASS of both bf16 kernels (``cuobjdump -sass``) by opcode: HMMA
+   (tensor-core products), MUFU (the cell's exp and reciprocal), the FMA
+   units' float operations, shared-memory loads and stores, barriers;
+2. both kernels in both compute types against their plain versions at the
+   card tests' shapes (``tests/test_torch_kernel_cuda.py``): the largest
+   absolute gap to the plain version of the same tier (and, in bf16, to
+   the f32 one), and whether a repeat is bit-equal;
+3. times, CUDA events, in turns (``chip_smoke.in_turns``): the peer context
+   at ``stacked-ss-crossuser-10s``'s serving shape (B = 4096 and 65,536,
+   K = 7, T = 100, C = 128) and the encoder at ``stacked-ss-crossuser``'s
+   peer rows (65,536 rows, T = 30, H = 128, one layer), in bf16 beside the
+   f32 tier and, at the smaller shapes, cuDNN's ``nn.LSTM`` in bf16;
+4. unless ``--self-only``: the time split of the probe build
+   (``-DLSTM_PROBE``: thread 0 of every block adds its ``clock64`` deltas
+   per part, ``LstmPart`` order) of both bf16 kernels at those shapes;
+5. with ``--serve`` only: the serve call end to end (``chip_smoke.serve_call``:
+   normalize, the kernels, denormalize, the tile mask; CUDA events) of
+   ``stacked-ss-crossuser-10s`` (the peer context and the lockstep serve
+   kernel) and ``stacked-ss-crossuser`` (the encoder and the static serve
+   kernel) at B = 65,536 in bf16 and f32, in turns, one process a checkout,
+   so that a call can run parent, change, change, parent.
+"""
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PARTS = ("stage x", "products", "cell", "publish", "barriers")
+# the card tests' shapes: peer context (batch, K, T, C), encoder (rows, layers, hidden)
+PEER_SHAPES = ((1, 7, 20, 128), (13, 3, 20, 128), (4099, 7, 20, 128), (4099, 8, 20, 128), (257, 4, 20, 64),
+               (257, 8, 20, 96), (300, 1, 20, 32))
+ENC_SHAPES = ((1, 1, 128), (257, 2, 128), (16387, 1, 128), (4099, 3, 128), (300, 1, 32), (300, 2, 256))
+
+
+def sass_opcodes(lib_path):
+    """The static instruction counts of the bf16 peer context and encoder in
+    a build's SASS: in all, and by opcode class."""
+    from longterm360fov_tpu_torch.ops import _build
+
+    sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    classes = {"HMMA": ("HMMA",), "MUFU": ("MUFU",), "FMA units": ("FFMA", "FMUL", "FADD", "FSEL", "FSETP", "FMNMX"),
+               "LDS/LDSM": ("LDS", "LDSM"), "STS": ("STS",), "global": ("LDG", "STG", "LD.", "ST."), "BAR": ("BAR",)}
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = next((n for n in ("peer_context_kernel", "fused_encode_kernel") if n in ln and "nv_bfloat16" in ln),
+                      None)
+            if fn:
+                counts[fn] = dict.fromkeys(["all", *classes], 0)
+        elif fn and "/*" in ln and ";" in ln:
+            op = ln.split("*/")[1].strip().split()[0] if "*/" in ln else ""
+            op = op.split()[0] if op else ""
+            if op.startswith("@"):
+                op = ln.split("*/")[1].split()[1]
+            counts[fn]["all"] += 1
+            for name, prefixes in classes.items():
+                if op.startswith(prefixes):
+                    counts[fn][name] += 1
+    return counts
+
+
+def time_serve(chip_smoke, dev, smi):
+    """The serve calls of the two crossuser presets (5. above)."""
+    from longterm360fov_tpu_torch import cli
+    from longterm360fov_tpu_torch.config import get_preset
+    from longterm360fov_tpu_torch.models import cross_user
+    from longterm360fov_tpu_torch.params import params_from_numpy
+
+    out = {}
+    for preset, iters in (("stacked-ss-crossuser-10s", 1), ("stacked-ss-crossuser", 3)):
+        cfg = get_preset(preset)
+        params = params_from_numpy(cli.bench_params_np(cfg, 0), dev)
+        calls = {str(cd)[6:]: chip_smoke.serve_call(cfg, params, dev, 65536, cd, cross_user)
+                 for cd in (torch.float32, torch.bfloat16)}
+        out[preset] = chip_smoke.in_turns(calls, dict.fromkeys(calls, iters))
+        torch.cuda.empty_cache()
+    print(f"serve calls at B=65536 (ms a call, CUDA events, in turns; {smi}): {json.dumps(out)}", flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--checkout", default=str(ROOT), help="the checkout whose port to import")
+    ap.add_argument("--self-only", action="store_true", help="skip the probe build")
+    ap.add_argument("--serve", action="store_true", help="only time the serve calls")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("torch sees no CUDA device; this probe runs only on the card")
+    sys.path.insert(0, args.checkout)
+    import chip_smoke
+    from longterm360fov_tpu_torch.ops import _build, fused_lstm
+
+    fused_lstm.exact_f32_matmul()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"{smi}; port from {args.checkout}", flush=True)
+    dev = torch.device("cuda:0")
+    bf, f32 = torch.bfloat16, torch.float32
+    if args.serve:
+        return time_serve(chip_smoke, dev, smi)
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc each, started together
+        jobs = {"fused_serve": pool.submit(_build.build, "fused_serve")}
+        if not args.self_only:
+            jobs["probe"] = pool.submit(_build.build, "fused_serve", ("LSTM_PROBE",))
+        builds = {k: j.result() for k, j in jobs.items()}
+    for k, b in builds.items():
+        print(f"build {k}: {b.seconds:.1f} s; {chip_smoke.ptxas_report(b.log)}", flush=True)
+    print(f"SASS instructions of the bf16 kernels by opcode: {json.dumps(sass_opcodes(builds['fused_serve'].path))}",
+          flush=True)
+
+    def gaps(out, refs):
+        return [round((out - r).abs().max().item(), 7) for r in refs]
+
+    readings = {}
+    for batch, k, t, c in PEER_SHAPES:
+        rng = np.random.default_rng(batch + k)
+        peer = chip_smoke.stack(rng, dev, 3, 1, h=c)[0]
+        pxs, w = chip_smoke.peer_inputs(rng, dev, chip_smoke.randn(rng, dev, (batch, 1, 3)), k, t)
+        for cd in (f32, bf):
+            out = fused_lstm.peer_context(peer, pxs, w, compute_dtype=cd)
+            refs = [fused_lstm.peer_context_reference(peer, pxs, w, c_) for c_ in ((cd,) if cd == f32 else (bf, f32))]
+            readings[f"peer_context B={batch} K={k} T={t} C={c} {str(cd)[6:]}"] = {
+                "gap": gaps(out, refs), "repeat_bit_equal": torch.equal(out, fused_lstm.peer_context(
+                    peer, pxs, w, compute_dtype=cd))}
+    for rows, layers, h in ENC_SHAPES:
+        rng = np.random.default_rng(rows + layers)
+        ps = chip_smoke.stack(rng, dev, 3, layers, h=h)
+        xs = chip_smoke.randn(rng, dev, (rows, 30, 3), 0.3)
+        for cd in (f32, bf):
+            out = fused_lstm.fused_encode(ps, xs, compute_dtype=cd)
+            refs = [fused_lstm.fused_encode_reference(ps, xs, c_) for c_ in ((cd,) if cd == f32 else (bf, f32))]
+            readings[f"fused_encode rows={rows} L={layers} H={h} {str(cd)[6:]}"] = {
+                "gap": gaps(out, refs), "repeat_bit_equal": torch.equal(out, fused_lstm.fused_encode(
+                    ps, xs, compute_dtype=cd))}
+    print(f"against plain (largest absolute gap to the plain version of the tier, and in bf16 to f32): "
+          f"{json.dumps(readings)}", flush=True)
+
+    rng = np.random.default_rng(2)
+    peer = chip_smoke.stack(rng, dev, 3, 1)[0]
+    (tier_peer,) = fused_lstm._in_tier([peer], bf)
+    cases = {}
+    for batch in (4096, 65536):
+        pxs, w = chip_smoke.peer_inputs(rng, dev, chip_smoke.randn(rng, dev, (batch, 1, 3)), 7, 100)
+        cases[batch] = (pxs, w)
+        fns = {"bf16": lambda: fused_lstm.peer_context(peer, pxs, w, compute_dtype=bf),
+               "f32": lambda: fused_lstm.peer_context(peer, pxs, w)}
+        if batch == 4096:
+            net, flat = chip_smoke.cudnn_lstm([peer], 3, dev, training=False, dtype=bf), pxs.reshape(-1, 100, 3).to(bf)
+
+            def library():
+                with torch.no_grad():
+                    return net(flat)[0]
+            fns["cudnn_bf16"] = library
+        it = 3 if batch == 4096 else 1
+        ms = chip_smoke.in_turns(fns, dict.fromkeys(fns, it))
+        print(f"peer_context alone at B={batch}, K=7, T=100, C=128 (ms, CUDA events, in turns; cudnn_bf16: "
+              f"nn.LSTM in bf16 over the {batch * 7} peer rows; {smi}): {json.dumps(ms)}", flush=True)
+    ps = chip_smoke.stack(rng, dev, 3, 1)
+    tier_ps = fused_lstm._in_tier(ps, bf)
+    xs = chip_smoke.unit_rows(rng, dev, (65536, 30))
+    net, xs_lib = chip_smoke.cudnn_lstm(ps, 3, dev, training=False, dtype=bf), xs.to(bf)
+
+    def library():
+        with torch.no_grad():
+            return net(xs_lib)[1][0][-1]
+    fns = {"bf16": lambda: fused_lstm.fused_encode(ps, xs, compute_dtype=bf), "f32": lambda: fused_lstm.fused_encode(
+        ps, xs), "cudnn_bf16": library}
+    ms = chip_smoke.in_turns(fns, dict.fromkeys(fns, 5))
+    print(f"fused_encode alone at 65,536 rows, T=30, H=128, L=1 (ms, CUDA events, in turns; cudnn_bf16: nn.LSTM "
+          f"in bf16; {smi}): {json.dumps(ms)}", flush=True)
+    del net
+    torch.cuda.empty_cache()
+    if args.self_only:
+        return
+
+    lib = fused_lstm.bind(ctypes.CDLL(str(builds["probe"].path)))
+    buf = (ctypes.c_ulonglong * len(PARTS))()
+    calls = {"peer_context B=4096": lambda: fused_lstm.launch_peer_context(lib, tier_peer, *cases[4096], bf),
+             "peer_context B=65536": lambda: fused_lstm.launch_peer_context(lib, tier_peer, *cases[65536], bf),
+             "fused_encode 65536 rows": lambda: fused_lstm.launch_encode(lib, tier_ps, xs, bf)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        lib.fused_serve_probe_read(buf)
+        n = 2
+        t_ms = chip_smoke.cuda_ms(fn, n)
+        lib.fused_serve_probe_read(buf)
+        total = sum(buf)
+        split = {p: round(v / total, 4) for p, v in zip(PARTS, buf) if v}
+        print(f"{name} bf16 probe build ({t_ms:.3f} ms a call, {total / (n + 1):.0f} clocks a call summed over "
+              f"the blocks; thread 0's clock64 a part; {smi}): {json.dumps(split)}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

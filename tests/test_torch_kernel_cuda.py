@@ -692,6 +692,71 @@ def test_lockstep_tier_never_falls_back_on_card():
         lstm_align.peer_fwd(peer, pxs.reshape(36, 3, 3).contiguous(), w)
 
 
+# ---------------------------- the bf16 encoders on the tensor cores (lstm_mma.cuh)
+# peer_context and fused_encode in bf16 at the widths, depths and peer counts
+# their blocks take apart from the serving shapes: W streamed (L >= 2, wide
+# H), c in device memory, 16-row tiles, 9 and 5 warps; ragged last blocks.
+# The gates of the bf16 tests above; repeats bit-equal; a row's answer does
+# not depend on the batch it comes in.
+
+
+@pytest.mark.parametrize("hidden,layers,batch", [(32, 1, 300), (32, 3, 257), (256, 1, 300), (256, 2, 129),
+                                                 (128, 2, 4099), (128, 3, 65), (1024, 3, 33)])
+def test_bf16_encode_tensor_core_shapes(hidden, layers, batch):
+    rng = np.random.default_rng(hidden + layers)
+    ps = _stack(rng, 3, layers, hidden=hidden)
+    xs = _cuda(rng, (batch, 12, 3), 0.3)
+    before = _counts([fused_lstm.fused_encode])
+    out = fused_lstm.fused_encode(ps, xs, compute_dtype=BF)
+    torch.cuda.synchronize()
+    assert _counts([fused_lstm.fused_encode]) == _one_more(before, BF)
+    assert out.shape == (batch, hidden)
+    _check([out], _plains(BF, lambda c: [fused_lstm.fused_encode_reference(ps, xs, c)]), "encode", BF)
+    assert torch.equal(out, fused_lstm.fused_encode(ps, xs, compute_dtype=BF))
+    part = slice(batch // 3, batch // 3 + 37)
+    assert torch.equal(out[part], fused_lstm.fused_encode(ps, xs[part].clone(), compute_dtype=BF))
+
+
+@pytest.mark.parametrize("ctx_dim,k,batch", [(64, 4, 301), (96, 8, 257), (128, 4, 1000), (128, 8, 129),
+                                             (32, 3, 300), (128, 9, 70), (1024, 1, 40)])
+def test_bf16_peer_context_tensor_core_shapes(ctx_dim, k, batch):
+    rng = np.random.default_rng(ctx_dim + k)
+    peer = _stack(rng, 3, 1, hidden=ctx_dim)[0]
+    pxs = _cuda(rng, (batch, k, 15, 3), 0.5)
+    m = (rng.random((batch, k)) < 0.6).astype(np.float32)
+    m[0] = 0.0
+    w = torch.tensor(m / np.maximum(m.sum(1, keepdims=True), 1.0), device="cuda")
+    before = _counts([fused_lstm.peer_context])
+    out = fused_lstm.peer_context(peer, pxs, w, compute_dtype=BF)
+    torch.cuda.synchronize()
+    assert _counts([fused_lstm.peer_context]) == _one_more(before, BF)
+    assert out.shape == (batch, 15, ctx_dim) and not out[0].any()
+    _check([out], _plains(BF, lambda c: [fused_lstm.peer_context_reference(peer, pxs, w, c)]), "ctx", BF)
+    assert torch.equal(out, fused_lstm.peer_context(peer, pxs, w, compute_dtype=BF))
+    part = slice(batch // 3, batch // 3 + 23)
+    assert torch.equal(out[part], fused_lstm.peer_context(peer, pxs[part].clone(), w[part].clone(),
+                                                          compute_dtype=BF))
+
+
+def test_bf16_encoders_refuse_the_widest_inputs_on_card():
+    """The bf16 encoders' least block, 16 rows of [x, h] in bf16 beside a
+    staging row, does not fit the 16 widest inputs that the f32 tier takes
+    with 8 rows (ROADMAP's known divergences): a named ValueError, no
+    launch."""
+    hidden, d = 1024, 5209
+    ps = [LSTMParams(torch.zeros((d + hidden, 4 * hidden), device="cuda"), torch.zeros(4 * hidden, device="cuda"))]
+    xs = torch.zeros((2, 2, d), device="cuda")
+    before = _counts([fused_lstm.fused_encode])
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        fused_lstm.fused_encode(ps, xs, compute_dtype=BF)
+    assert _counts([fused_lstm.fused_encode]) == before
+    assert fused_lstm.fused_encode(ps, xs).shape == (2, hidden)  # the f32 tier takes it
+    peer = LSTMParams(torch.zeros((7000 + hidden, 4 * hidden), device="cuda"), torch.zeros(4 * hidden, device="cuda"))
+    with pytest.raises(ValueError, match="do not fit the bf16 peer context's block"):
+        fused_lstm.peer_context(peer, torch.zeros((2, 1, 2, 7000), device="cuda"), torch.ones((2, 1), device="cuda"),
+                                compute_dtype=BF)
+
+
 # ------------------------------------------------------- aligned_ss_decode kernels
 # The bounds of the ss_decode kernels: forward 1e-5 (or one bf16 step on bf16
 # residuals), backward and reductions 1e-4 of max|plain| per output.
