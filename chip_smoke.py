@@ -14,8 +14,10 @@ one line each or more:
    none of which may be 0: the bf16 tier, and the f32 tier and row 11's
    forward and reverse (three-pass TF32); the same for every instance of
    the lockstep peer backward (``align_peer_bwd_kernel``: both products on
-   ``mma.sync``, three-pass TF32 in f32, bf16 in bf16) and the bf16 tiers of
-   the peer context and the encoder (``lstm_mma.cuh``: ``mma.sync`` bf16);
+   ``mma.sync``, three-pass TF32 in f32, bf16 in bf16), the bf16 tiers of
+   the peer context, the encoder and the cell (``lstm_mma.cuh``:
+   ``mma.sync`` bf16) and both block shapes of the bf16 transformer decode
+   (``transformer_decode_mma.cuh``, 64 and 32 rows);
 3. each kernel against its plain PyTorch version at full width (hidden 128),
    at batches that are not a multiple of the kernels' row tiles:
    ``fused_serve`` without and with a static context (C = 128),
@@ -165,7 +167,9 @@ one line each or more:
    beside its time before the tensor-core design (``BEFORE``), its
    bound's share, its readings and the time split of its probe build; the
    f32 encoder's beside its FMA design's (``BEFORE``) and its bound
-   beside the FMA units' bound of the same work;
+   beside the FMA units' bound of the same work; the bf16 decode (row 9c)
+   beside its FMA design's time and the K/V re-read floor (every step
+   reads its rows' self, cross and peer K/V again), and alone at B = 65,536;
 14. the ``transformer-30`` training main path: ``train.train_loop`` at
    B = 4096 with K = 4 peers, noisy teacher forcing annealing 1 → 0.3, the
    encoder on the three ``fused_encode_train`` kernels (``train_impl``
@@ -187,7 +191,8 @@ one line each or more:
    (G = 8); grouped against per-row calls timed at both batches, profiles
    of both at 4096; the f32 shared tier alone against plain at B = 4096,
    and the per-row kernel alone at the TPU streamed tier's shape (window
-   0) and, in bf16, at the preset's window 8 beside its f32 twin;
+   0) and, in bf16, at the preset's window 8 beside its f32 twin and its
+   FMA design's time (B = 4096), and at B = 16384;
    ``transformer-30`` grouped at B = 16384;
 16. the ``transformer-10s`` training main path: ``train.train_loop`` at
    B = 1024 (plain encoder at T = 100, as in JAX), evaluation through the
@@ -209,7 +214,10 @@ one line each or more:
    autograd); then each bf16 serving tier alone against its f32 twin, its
    plain version and cuDNN's or cuBLAS's bf16 call; the peer context (at
    B = 4096 and 65,536) and the encoder beside their FMA design's times
-   (``BEFORE``), their bounds' share and their bounds on the FMA units.
+   (``BEFORE``), their bounds' share and their bounds on the FMA units;
+   the bf16 cell (row 2b, on the tensor cores) beside its FMA design's time,
+   with its device time and ``torch.lstm_cell``'s (``torch.profiler``) and
+   the host's time a call.
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -321,14 +329,18 @@ HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
 # 65,536, and 4096 for row 11); the peer backward (rows 7 / 7b) and dproj
 # (rows 6 / 6b) before their tensor-core and 16-byte-load designs; the bf16
 # peer context (row 1b, B = 4096 and 65,536) and encoder (row 4b) on the FMA
-# units
+# units; the bf16 cell (row 2b, B = 16384, D_in = 3 and 128) and the bf16
+# transformer decode (row 9c: transformer-30 at B = 16384, transformer-10s
+# per row at 4096) on the FMA units
 BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_decode_dw": 3.920,
           "ss_decode_dw_bf16": 3.777, "aligned_dec_dw": 20.739, "aligned_dec_dw_bf16": 20.681,
           "aligned_peer_dw": 20.808, "aligned_peer_dw_bf16": 21.833, "fused_encode_tokens_bf16": 19.151,
           "fused_encode_tokens": 23.980, "fused_encode_tokens B=65536": 94.329, "encode_train_fwd": 6.458,
           "encode_train_bwd": 15.915, "aligned_peer_bwd": 53.983, "aligned_peer_bwd_bf16": 47.555,
           "ss_decode_dproj": 0.073, "ss_decode_dproj_bf16": 0.049, "peer_context_bf16": 19.443,
-          "peer_context_bf16 B=65536": 303.645, "fused_encode_bf16": 11.112}
+          "peer_context_bf16 B=65536": 303.645, "fused_encode_bf16": 11.112, "fused_lstm_cell_bf16": 0.137,
+          "fused_lstm_cell_bf16 D_in=128": 0.219, "fused_ar_decode_bf16": 74.404,
+          "fused_ar_decode_bf16 transformer-10s": 172.655}
 DW_NAMES = [n for n in BEFORE if n.rsplit("_bf16", 1)[0].endswith("_dw")]
 # the cell kernel against lstm_cell: one step, exact f32 FMAs in another order
 # (tests/test_fused_lstm.py's bound for the TPU cell)
@@ -1501,6 +1513,22 @@ def time_cell_kernel(dev, smi, d_in, keep, cd=F32, batch=16384):
         record(name, ms, flop, reads, writes, peak)
     print(f"{name} alone (B={batch}, D_in={d_in}, H=128; ms, CUDA events, {smi}): {json.dumps(ms)}; "
           f"bound {b_ms:.4f} ms by {b_by}; vs plain {json.dumps(err)}, vs torch.lstm_cell {lib_err:.3e}", flush=True)
+    if cd == BF:  # row 2b on the tensor cores: beside its FMA design, its device and host time a call
+        host = {}
+        for w in ("kernel", "library"):
+            fns[w]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fns[w]()
+            host[w] = (time.perf_counter() - t0) / 100 * 1e3
+            torch.cuda.synchronize()
+        kernel_ms, records = launch_device_ms(fns["kernel"], "lstm_cell_kernel", 20)
+        report_redesign(name, smi, {"ms": ms["kernel"], "library_ms": ms["library"], "bound_ms": b_ms,
+                                    "bound_by": b_by}, before=name if d_in == 3 else f"{name} D_in={d_in}",
+                        device={"kernel": kernel_ms, "library": device_ms(fns["library"], 20)},
+                        extra=f" (the kernel: the mean of {records} of 20 launches' records); host time a call "
+                              f"(ms, 100 calls enqueued): {json.dumps(host)}")
 
 
 # --------------------------------------------------------------- training paths
@@ -1775,6 +1803,26 @@ def device_ms(fn, iters):
                if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
+def launch_device_ms(fn, part, iters):
+    """The device time of one launch of the kernel whose name holds
+    ``part``, under ``fn``: the mean of torch.profiler's records of it over
+    ``iters`` calls → (ms, records). A record CUPTI drops is left out of the
+    mean, not counted as 0 (device_ms's sum over the calls would count it
+    so), and the count says how many were kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and part in e.name]
+    return (sum(spans) / len(spans) / 1e3 if spans else float("nan")), len(spans)
+
+
 def peer_bwd_share(label, prof, smi):
     """The peer backward's share of a profiled 10 s train step's device busy
     time (``prof``: profile_device's)."""
@@ -1803,7 +1851,9 @@ def report_redesign(name, smi, t=None, io=None, before=None, fma_bound=None, dev
         fma_bound = bound(flop_of(work), reads, writes)[0]
     lib = t.get("library_ms")
     lib = no_library if lib is None else f"{lib:.4f} ms ({lib / t['ms']:.2f}x the kernel's time)"
-    line = (f"{name}: {t['ms']:.4f} ms (before this design {BEFORE[before or name]} ms, PERF.md), bound "
+    prev = BEFORE.get(before or name)
+    line = (f"{name}: {t['ms']:.4f} ms (before this design "
+            + ("not measured" if prev is None else f"{prev} ms, PERF.md") + "), bound "
             f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bound_ms'] / t['ms']:.1%} of the time), library {lib}")
     if fma_bound is not None:
         line += f", on the FMA units {fma_bound:.3f} ms"
@@ -2044,17 +2094,18 @@ def report_peer_bwd(builds):
 
 
 def report_lstm_mma(builds):
-    """The bf16 peer context and encoder (rows 1b, 4b; lstm_mma.cuh): their
-    registers, spills and shared memory (ptxas; the dynamic shared memory of
-    the serving shapes' blocks, from ops.fused_lstm's choosers) and the count
-    of HMMA instructions in their SASS; fails if either has none: their
-    products run on mma.sync."""
+    """The bf16 peer context and encoder (rows 1b, 4b; lstm_mma.cuh) and the
+    bf16 cell (row 2b, lstm_mma.cuh's cell_step): their registers, spills
+    and shared memory (ptxas; the dynamic shared memory of the serving
+    shapes' blocks, from ops.fused_lstm's choosers) and the count of HMMA
+    instructions in their SASS; fails if one has none: their products run
+    on mma.sync."""
     sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
                            str(builds["fused_serve"].path)], capture_output=True, text=True, check=True).stdout
     hmma, fn = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            fn = next((k for k in ("peer_context_kernel", "fused_encode_kernel")
+            fn = next((k for k in ("peer_context_kernel", "fused_encode_kernel", "lstm_cell_kernel")
                        if k in ln and "nv_bfloat16" in ln), None)
             if fn:
                 hmma[fn] = 0
@@ -2066,8 +2117,41 @@ def report_lstm_mma(builds):
         print(f"{name}<bf16>: {hmma.get(name, 0)} HMMA instructions in its SASS; "
               f"{json.dumps(ptxas_resources('fused_serve', (name, 'nv_bfloat16')))}, {geo.smem} bytes of dynamic "
               f"shared memory and {geo.warps} warps a block of {geo.rp} rows at the serving shape", flush=True)
+    lib = fused_lstm.bind(ctypes.CDLL(str(builds["fused_serve"].path)))
+    print(f"lstm_cell_kernel<bf16>: {hmma.get('lstm_cell_kernel', 0)} HMMA instructions in its SASS; "
+          f"{json.dumps(ptxas_resources('fused_serve', ('lstm_cell_kernel', 'nv_bfloat16')))}, "
+          f"{json.dumps({d: lib.lstm_cell_smem_bytes(d, 128) for d in (3, 128)})} bytes of dynamic shared memory at "
+          f"D_in = 3 and 128, 16 warps a block of {fused_lstm.cell_tc_rows(3, 128)} rows at H = 128", flush=True)
+    if len(hmma) != 3 or not all(hmma.values()):
+        raise AssertionError(f"a bf16 LSTM kernel has no HMMA instruction, its products off the tensor cores: {hmma}")
+
+
+def report_decode_mma(builds):
+    """The bf16 transformer decode (row 9c, transformer_decode_mma.cuh) in
+    blocks of 64 and of 32 rows: registers, spills and shared memory
+    (ptxas; the dynamic shared memory from the library) and the count of
+    HMMA instructions in each instance's SASS; fails if one has none."""
+    sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
+                           str(builds["transformer_decode"].path)], capture_output=True, text=True, check=True).stdout
+    hmma, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            sym = ln.split("Function :")[1].strip()
+            fn = sym if "ar_decode_kernel" in sym and "nv_bfloat16" in sym else None
+            if fn:
+                hmma[fn] = 0
+        elif fn and "HMMA" in ln:
+            hmma[fn] += 1
+    lib = transformer_decode.bind(ctypes.CDLL(str(builds["transformer_decode"].path)))
+    for sym, n in hmma.items():
+        rows = 32 if "Li32E" in sym else 64
+        print(f"ar_decode_kernel<bf16, {rows} rows>: {n} HMMA instructions in its SASS; "
+              f"{json.dumps(ptxas_resources('transformer_decode', (sym,)))}, "
+              f"{lib.transformer_decode_smem_bytes(rows)} bytes of dynamic shared memory, 16 warps a block",
+              flush=True)
     if len(hmma) != 2 or not all(hmma.values()):
-        raise AssertionError(f"a bf16 encoder has no HMMA instruction, its products off the tensor cores: {hmma}")
+        raise AssertionError(f"a bf16 decode instance has no HMMA instruction, its products off the tensor cores: "
+                             f"{hmma}")
 
 
 def report_dw(smi):
@@ -3058,6 +3142,16 @@ def tf_work(m, batch, kt, attended):
     return enc, dec
 
 
+def reread_ms(m, batch, attended):
+    """The re-read floor of a decode that keeps the K/V in device memory
+    (a row's K/V does not fit a block's shared memory): every step reads
+    its self cache rows (t at step t), the T_in cross tokens and this run's
+    ``attended`` peer tokens (summed over rows and steps) again, K and V in
+    bf16, every layer, over the memory rate → ms."""
+    tokens = batch * (m.h_out * (m.h_out - 1) // 2 + m.h_in * m.h_out) + attended
+    return m.layers * tokens * 2 * m.hidden * 2 / HBM_BYTES * 1e3
+
+
 def stored(tensors, tier):
     """The tensors as the tier stores them: bf16 matrices (the 2-D leaves) in
     the bf16 tier, for its byte count."""
@@ -3139,6 +3233,10 @@ def time_tf_kernels(dev, params, cfg, batch, smi, keep):
                 enc_bf16 = {"ms": ms["kernel"], "library_ms": ms["library"], "bound_ms": b_ms, "bound_by": b_by}
             elif name == "fused_encode_tokens":
                 report_redesign(name, smi, {"ms": ms["kernel"], "library_ms": ms["library"]}, io[name])
+            elif name == "fused_ar_decode_bf16":
+                report_redesign(name, smi, {"ms": ms["kernel"], "library_ms": None, "bound_ms": b_ms,
+                                            "bound_by": b_by}, no_library="none (AR decode with feedback)",
+                                extra=f"; the K/V re-read floor {reread_ms(m, batch, int(pv.sum()) * m.h_out):.3f} ms")
     report_encode_bf16(enc_bf16, enc_readings, params, m, past_n, smi)
 
 
@@ -3533,15 +3631,16 @@ def time_shared_tier(dev, params, cfg, batch, n_groups, smi):
           f"vs plain {err:.3e} (tolerance {TF_TOL}); library: none (AR decode with feedback)", flush=True)
 
 
-def time_decode_per_row(dev, params, cfg, batch, smi, window=0, tier=F32):
-    """The per-row decode kernel alone in ``tier`` at the preset's
-    100 + 100 steps and K peers and at ``window``: 0, the TPU streamed
-    tier's shape (every row's K·T peer tokens attended at every step); the
-    preset's 8, ``transformer-10s``'s per-row serving. Checked first against
-    the plain version in the same tier, then timed in turns (in bf16 beside
-    the f32 kernel), with its bound over the tokens this window attends.
-    Reported beside the kernels line, whose entries keep transformer-30's
-    shape."""
+def time_decode_per_row(dev, params, cfg, batch, smi, window=0, tier=F32, twin=True):
+    """The per-row decode kernel alone in ``tier`` at the preset's steps
+    and K peers and at ``window``: at 100 + 100 steps, 0 is the TPU
+    streamed tier's shape (every row's K·T peer tokens attended at every
+    step), the preset's 8 ``transformer-10s``'s per-row serving. Checked
+    first against the plain version in the same tier, then timed in turns
+    (in bf16 beside the f32 kernel, where ``twin``), with its bound over the
+    tokens this window attends; in bf16 beside its FMA design's time where
+    PERF.md has one, and the K/V re-read floor. Reported beside the kernels
+    line, whose entries keep transformer-30's shape at B = 16384."""
     m = get_preset(cfg.name, model_peer_window=window).model
     rng = np.random.default_rng(21)
     past_n, _, anchor = windows.normalize_window(unit_rows(rng, dev, (batch, m.h_in)))
@@ -3562,7 +3661,7 @@ def time_decode_per_row(dev, params, cfg, batch, smi, window=0, tier=F32):
             raise AssertionError(f"fused_ar_decode{sfx} at B={batch}, window {window} disagrees with plain: {err:.3e}")
         note_err(f"fused_ar_decode{sfx}", err)
         fns = {"plain": lambda: run(False, tier), "kernel": lambda: run(True, tier)}
-        if tier == BF:
+        if tier == BF and twin:
             fns["f32_kernel"] = lambda: run(True, F32)
         ms = in_turns(fns, {"plain": 1, "kernel": 2, "f32_kernel": 2})
     mask = transformer._peer_window_mask(m, pm.shape[1], tq=m.h_out, device=dev)
@@ -3570,11 +3669,18 @@ def time_decode_per_row(dev, params, cfg, batch, smi, window=0, tier=F32):
     flop = tf_work(m, batch, pm.shape[1], attended)[1]
     b_ms, b_by = bound(flop, [enc, y0, pm, pv] + stored(tree_leaves(params), tier), [out],
                        F32_FLOPS if tier == F32 else BF16_FLOPS)
-    shape = ", the TPU streamed tier's shape" if not window else ""
-    print(f"fused_ar_decode{sfx} per-row tier alone (B={batch}, {m.h_in}+{m.h_out} steps, K={cfg.n_other_users}: "
-          f"{pm.shape[1]} peer tokens, window {window}{shape}; ms, CUDA events, {smi}): {json.dumps(ms)}; bound "
-          f"{b_ms:.3f} ms by {b_by}; max_abs_err vs plain {err:.3e} (tolerance {tol}); library: none (AR decode with "
-          f"feedback)", flush=True)
+    shape = ", the TPU streamed tier's shape" if not window and m.h_out == 100 else ""
+    print(f"fused_ar_decode{sfx} per-row tier alone ({cfg.name}, B={batch}, {m.h_in}+{m.h_out} steps, "
+          f"K={cfg.n_other_users}: {pm.shape[1]} peer tokens, window {window}{shape}; ms, CUDA events, {smi}): "
+          f"{json.dumps(ms)}; bound {b_ms:.3f} ms by {b_by}; max_abs_err vs plain {err:.3e} (tolerance {tol}); "
+          f"library: none (AR decode with feedback)", flush=True)
+    if tier == BF:
+        before = f"fused_ar_decode_bf16 {cfg.name}"
+        report_redesign("fused_ar_decode_bf16", smi, {"ms": ms["kernel"], "library_ms": None, "bound_ms": b_ms,
+                                                      "bound_by": b_by},
+                        before=before if before in BEFORE and batch == 4096 and window == m.peer_window else "-",
+                        no_library="none (AR decode with feedback)",
+                        extra=f"; B={batch}; the K/V re-read floor {reread_ms(m, batch, attended):.3f} ms")
 
 
 def time_encoder_t100(dev, params, cfg, smi):
@@ -3826,6 +3932,7 @@ def main():
     report_tensor_cores(builds)
     report_peer_bwd(builds)
     report_lstm_mma(builds)
+    report_decode_mma(builds)
 
     phase("3 kernels vs plain")
     # 3. every kernel against its plain version at full width; the f32
@@ -3974,6 +4081,7 @@ def main():
         profile_device(f"{TF_SERVE}: {str(tier)[6:]} serve call at B=16384",
                        serve_call(tfcfg, tparams, dev, 16384, tier), 2, smi)
     time_tf_kernels(dev, tparams, tfcfg, 16384, smi, keep=True)
+    time_decode_per_row(dev, tparams, tfcfg, 65536, smi, tier=BF, twin=False)  # row 9c at B = 65,536
     time_encode_f32(dev, tparams, tfcfg, 65536, smi, before="fused_encode_tokens B=65536")
     torch.cuda.empty_cache()
 
@@ -4016,6 +4124,7 @@ def main():
     time_shared_tier(dev, t10params, t10cfg, 4096, 8, smi)
     time_decode_per_row(dev, t10params, t10cfg, 4096, smi)
     time_decode_per_row(dev, t10params, t10cfg, 4096, smi, window=t10cfg.model.peer_window, tier=BF)
+    time_decode_per_row(dev, t10params, t10cfg, 16384, smi, window=t10cfg.model.peer_window, tier=BF, twin=False)
     torch.cuda.empty_cache()
     check_grouped_tf(tfcfg, dev, tparams, 16384, 8, f"{TF_SERVE} grouped")
     time_grouped(tfcfg, dev, tparams, 16384, 8, smi, f"{TF_SERVE} grouped")

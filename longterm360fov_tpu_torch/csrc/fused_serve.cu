@@ -34,7 +34,9 @@
 // against 256 FLOP: 4.3 GFLOP and 42 MB at B = 16384, 64 µs at the FMA peak
 // against 13 µs of bytes). W (Din + H, 4H) is 512 KB at Din = 128, more
 // than a block's shared memory: it streams from L2 in 16-byte loads, as in
-// every layer-step here.
+// every layer-step here. Its bf16 instance runs on the tensor cores
+// (lstm_mma.cuh's cell_step: mma.sync, W read as stored through a ring of
+// k16 steps), where its bytes, 17-21 MB at B = 16384, bound it.
 // Inputs are read and outputs written in the caller's batch-major layout; a
 // ragged last block is masked.
 //
@@ -112,9 +114,10 @@
 // fragments as the writes into the bf16 A buffer: x_t and each layer's new
 // h are rounded as they are stored there, the f32 h of the peer rows is
 // staged apart for ctx_t, and c and the accumulators stay f32 in the
-// lanes. The serve kernel's bf16 instances and the cell kernel keep
-// lstm_layer_step: their products still run on the FMA units, the tier
-// changing what is rounded and halving the weight bytes.
+// lanes. The serve kernel's bf16 instances keep lstm_layer_step: their
+// products still run on the FMA units, the tier changing what is rounded and
+// halving the weight bytes. The cell kernel's bf16 instance runs its one
+// step on mma.sync too (lstm_mma.cuh's cell_step).
 
 #include "compute_type.cuh"
 #include "lstm_mma.cuh"
@@ -390,39 +393,57 @@ __global__ void __launch_bounds__(256)
                    R, r0, j0, tid, nthr);
 }
 
-// One LSTM step (fused_lstm_cell) for the block's R rows: x (B, Din),
-// h and c (B, H) in, lstm_layer_step, h and c out, every tensor stored in ST.
-// The products of ST values are exact in f32, so the gates and the new c are
-// f32 sums, rounded to ST only where h and c are written.
+// Does the cell's tier of ST run the FMA body (lstm_layer_step): f32
+// always; bf16 only in a -DCELL_FMA build (the design before the tensor
+// cores, kept for scripts/torch_cell_bf16_probe.py's comparison in turns).
 template <typename ST>
-__global__ void __launch_bounds__(256)
+__host__ __device__ constexpr bool cell_fma() {
+#ifdef CELL_FMA
+  return true;
+#else
+  return std::is_same<ST, float>::value;
+#endif
+}
+
+// One LSTM step (fused_lstm_cell) for the block's R rows: x (B, Din),
+// h and c (B, H) in, h and c out, every tensor stored in ST. The products of
+// ST values are exact in f32, so the gates and the new c are f32 sums,
+// rounded to ST only where h and c are written. The bf16 tier is
+// lstm_mma.cuh's cell_step (mma.sync, W read as stored, R = 32 · (256 / H)); the
+// FMA body, lstm_layer_step, follows.
+template <typename ST>
+__global__ void __launch_bounds__(cell_fma<ST>() ? 256 : lstm_mma::CELL_THREADS)
     lstm_cell_kernel(const ST* __restrict__ x, const ST* __restrict__ h,
                      const ST* __restrict__ c, const ST* __restrict__ w,
                      const ST* __restrict__ b, ST* __restrict__ h_out,
                      ST* __restrict__ c_out, int B, int Din, int H, int R) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int j0 = (tid % (H / TJ)) * TJ;
-  const int r0 = (tid / (H / TJ)) * TR;
-  const int HR = H * R;
-  float* h_s = smem;         // (H, R)
-  float* c_s = h_s + HR;     // (TR * TJ, nthr)
-  float* x_s = c_s + HR;     // (Din, R)
-  const long long row0 = (long long)blockIdx.x * R;
+  if constexpr (!cell_fma<ST>()) {
+    lstm_mma::cell_step(x, h, c, w, b, h_out, c_out, B, Din, H);
+  } else {
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    const int tid = threadIdx.x, nthr = blockDim.x;
+    const int j0 = (tid % (H / TJ)) * TJ;
+    const int r0 = (tid / (H / TJ)) * TR;
+    const int HR = H * R;
+    float* h_s = smem;         // (H, R)
+    float* c_s = h_s + HR;     // (TR * TJ, nthr)
+    float* x_s = c_s + HR;     // (Din, R)
+    const long long row0 = (long long)blockIdx.x * R;
 
-  load_rows_kmajor(x_s, x, row0, B, Din, R, tid, nthr);
-  load_rows_kmajor(h_s, h, row0, B, H, R, tid, nthr);
-  load_c(c_s, c, row0, B, H, r0, j0, tid, nthr);
-  __syncthreads();
-  lstm_layer_step(x_s, Din, h_s, c_s, w, b, H, R, r0, j0, tid, nthr);
-  // the new h, row-major: neighbouring threads write neighbouring units
-  for (int i = tid; i < R * H; i += nthr) {
-    const int r = i / H, k = i % H;
-    const long long row = row0 + r;
-    if (row < B) st1(h_out + row * H + k, h_s[k * R + r]);
+    load_rows_kmajor(x_s, x, row0, B, Din, R, tid, nthr);
+    load_rows_kmajor(h_s, h, row0, B, H, R, tid, nthr);
+    load_c(c_s, c, row0, B, H, r0, j0, tid, nthr);
+    __syncthreads();
+    lstm_layer_step(x_s, Din, h_s, c_s, w, b, H, R, r0, j0, tid, nthr);
+    // the new h, row-major: neighbouring threads write neighbouring units
+    for (int i = tid; i < R * H; i += nthr) {
+      const int r = i / H, k = i % H;
+      const long long row = row0 + r;
+      if (row < B) st1(h_out + row * H + k, h_s[k * R + r]);
+    }
+    store_c(c_out, c_s, row0, B, H, r0, j0, tid, nthr);
   }
-  store_c(c_out, c_s, row0, B, H, r0, j0, tid, nthr);
 }
 
 // The lockstep peer encoders of the serve tier: one LSTM cell of hidden C
@@ -706,24 +727,39 @@ int fused_decode_f32(const void* h0, const void* c0, const void* y0,
 
 // One LSTM step: x (batch, d_in), h and c (batch, hidden), w (d_in + hidden,
 // 4 * hidden), b (4 * hidden,) → h_out, c_out (batch, hidden), every tensor
-// f32, or with `bf16` every tensor bf16. (2 * hidden + d_in) * rows floats of
-// dynamic shared memory.
+// f32, or with `bf16` every tensor bf16. f32: (2 * hidden + d_in) * rows
+// floats of dynamic shared memory. bf16: the tensor-core body, hidden % 16
+// == 0 up to 256, rows = 32 · (256 / hidden) (ops/fused_lstm.py
+// cell_tc_rows), lstm_mma::cell_smem_bytes of shared memory. Both: c, w and
+// b 16-byte aligned; x and h any (the bf16 body copies them in 16-byte
+// pieces where they are aligned, else by element).
 int lstm_cell_launch(const void* x, const void* h, const void* c, const void* w,
                      const void* b, void* h_out, void* c_out, int batch,
                      int d_in, int hidden, int rows, int bf16, void* stream) {
-  if (bad_shape(batch, 1, d_in, hidden, 1, rows))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)2 * hidden + d_in) * rows * sizeof(float);
-  const int grid = (batch + rows - 1) / rows, threads = (rows / TR) * (hidden / TJ);
-#define CELL(ST)                                                               \
-  launch(lstm_cell_kernel<ST>, grid, threads, smem, stream,                    \
+#define CELL(ST, THREADS, SMEM)                                                \
+  launch(lstm_cell_kernel<ST>, (batch + rows - 1) / rows, THREADS, SMEM, stream, \
          static_cast<const ST*>(x), static_cast<const ST*>(h),                 \
          static_cast<const ST*>(c), static_cast<const ST*>(w),                 \
          static_cast<const ST*>(b), static_cast<ST*>(h_out),                   \
          static_cast<ST*>(c_out), batch, d_in, hidden, rows)
-  return bf16 ? CELL(__nv_bfloat16) : CELL(float);
+  if (bf16 && !cell_fma<__nv_bfloat16>()) {
+    // the tensor-core body: hidden % 16 == 0 up to 256, rows 32 · (256 / hidden)
+    if (batch < 1 || d_in < 1 || !lstm_mma::cell_takes(hidden) || rows != lstm_mma::cell_rows(hidden) ||
+        lstm_mma::cell_smem_bytes(d_in, hidden) > lstm_mma::SMEM_LIMIT)
+      return (int)cudaErrorInvalidValue;
+    return CELL(__nv_bfloat16, lstm_mma::CELL_THREADS, (size_t)lstm_mma::cell_smem_bytes(d_in, hidden));
+  }
+  if (bad_shape(batch, 1, d_in, hidden, 1, rows))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)2 * hidden + d_in) * rows * sizeof(float);
+  const int threads = (rows / TR) * (hidden / TJ);
+  return bf16 ? CELL(__nv_bfloat16, threads, smem) : CELL(float, threads, smem);
 #undef CELL
 }
+
+// the dynamic shared memory of a block of the bf16 cell on the tensor cores
+// (lstm_mma::cell_smem_bytes), bytes
+int lstm_cell_smem_bytes(int d_in, int hidden) { return (int)lstm_mma::cell_smem_bytes(d_in, hidden); }
 
 // The probe build's sums (-DLSTM_PROBE; LstmPart order, LP_PARTS of them)
 // into out, then zeroed; without LSTM_PROBE, zeros.

@@ -486,23 +486,6 @@ __device__ __forceinline__ int dw_row(int f, int H, int in, int nw) {
   return u < wide ? nw + u : u < in ? u - wide : in + H;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(ok ? 16 : 0));  // src size 0: 16 bytes of zeros
-}
-// 4 bytes (cp.async.ca: the size .cg does not take); zeros when !ok
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// every group but the newest N complete
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
 
 // The product's tile per compute type. Both tiers: a block of 256 threads
 // owns DW_F features x DW_T columns over one slice of the rows, staged KQ

@@ -182,12 +182,16 @@ __device__ __forceinline__ void product(float (&acc)[MT][Tile<MT>::UT][4][4], co
 }
 
 // The cell update of a tile from its accumulators: the lane's pairs (rows
-// r0 + 16·mt + g and + 8, units u0 + 8·ut + 2t and + 1), c from and to its
-// float4 slots cs[(mt·UT + ut)·32] (e = 0..3: rows g, g, g + 8, g + 8 at
-// units 2t, 2t + 1), the new h handed to put(row, unit, h_unit, h_unit+1).
-template <int MT, typename Put>
-__device__ __forceinline__ void cell(const float (&acc)[MT][Tile<MT>::UT][4][4], const float* __restrict__ bias,
-                                     int H, float4* cs, int r0, int u0, int lane, Put put) {
+// r0 + 16·mt + g and + 8, units u0 + 8·ut + 2t and + 1). bias(ut, q, unit)
+// gives gate q's f32 bias at units unit, unit + 1; c_get(mt, ut) the old c
+// of the pairs as a float4 (e = 0..3: rows g, g, g + 8, g + 8 at units 2t,
+// 2t + 1) and c_set(mt, ut, c) takes the new one; the new h goes to
+// put(row, unit, h_unit, h_unit+1). The encoders keep c in lane-private f32
+// slots; the one-step cell (cell_step) takes c from, and gives it to, bf16
+// pairs in device memory.
+template <int MT, typename Bias, typename CGet, typename CSet, typename Put>
+__device__ __forceinline__ void cell(const float (&acc)[MT][Tile<MT>::UT][4][4], int r0, int u0, int lane,
+                                     Bias bias, CGet c_get, CSet c_set, Put put) {
   using TL = Tile<MT>;
   const int g8 = lane >> 2, t4 = lane & 3;
 #pragma unroll
@@ -195,11 +199,10 @@ __device__ __forceinline__ void cell(const float (&acc)[MT][Tile<MT>::UT][4][4],
     const int unit = u0 + 8 * ut + 2 * t4;
     float2 b[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) b[q] = __ldg(reinterpret_cast<const float2*>(bias + q * H + unit));
+    for (int q = 0; q < 4; ++q) b[q] = bias(ut, q, unit);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      float4* slot = cs + (mt * TL::UT + ut) * 32;
-      const float4 cv = *slot;
+      const float4 cv = c_get(mt, ut);
       const float c_old[4] = {cv.x, cv.y, cv.z, cv.w};
       float c_new[4], h[4];
 #pragma unroll
@@ -213,7 +216,7 @@ __device__ __forceinline__ void cell(const float (&acc)[MT][Tile<MT>::UT][4][4],
         c_new[e] = f_g * c_old[e] + i_g * g_g;
         h[e] = o_g * tanhf(c_new[e]);
       }
-      *slot = make_float4(c_new[0], c_new[1], c_new[2], c_new[3]);
+      c_set(mt, ut, make_float4(c_new[0], c_new[1], c_new[2], c_new[3]));
       const int row = r0 + 16 * mt + g8;
       put(row, unit, h[0], h[1]);
       put(row + 8, unit, h[2], h[3]);
@@ -303,12 +306,16 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
                     wl + tau % bands * TL::NP * 32 + lane, kstride, ldz, lane);
         pr.mark(LP_PRODUCTS);
         float4* cs = cl + (size_t)tau * MT * TL::UT * 32;
+        const float* bl = bias[l];
+        auto b_of = [&](int, int q, int unit) { return __ldg(reinterpret_cast<const float2*>(bl + q * H + unit)); };
+        auto c_get = [&](int mt, int ut) { return cs[(mt * TL::UT + ut) * 32]; };
+        auto c_set = [&](int mt, int ut, float4 c) { cs[(mt * TL::UT + ut) * 32] = c; };
         if constexpr (PEER) {
-          cell<MT>(acc, bias[l], H, cs, r0, u0, lane, [&](int row, int unit, float h0, float h1) {
+          cell<MT>(acc, r0, u0, lane, b_of, c_get, c_set, [&](int row, int unit, float h0, float h1) {
             if (row < rows) *reinterpret_cast<float2*>(hst + row * H + swz(row, unit)) = make_float2(h0, h1);
           });
         } else {
-          cell<MT>(acc, bias[l], H, cs, r0, u0, lane, [&](int row, int unit, float h0, float h1) {
+          cell<MT>(acc, r0, u0, lane, b_of, c_get, c_set, [&](int row, int unit, float h0, float h1) {
             *reinterpret_cast<__nv_bfloat162*>(est + row * lde + unit) = __floats2bfloat162_rn(h0, h1);
           });
         }
@@ -361,6 +368,187 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
       if (p0 + r < nrows) out[(p0 + r) * H + u] = __bfloat162float(ztop[r * ldz + u]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 tier's one-step cell (lstm_cell_kernel<__nv_bfloat16> in
+// fused_serve.cu, replacing the Pallas _cell_kernel of
+// longterm360fov_tpu/ops/fused_lstm.py::fused_lstm_cell): x (B, D), h and c
+// (B, H), W (D + H, 4H) and b (4H,) stored in bf16, h and c written in bf16;
+// the gates f32 sums of exact products, the cell in exact f32 (cell above).
+//
+// What bounds it on the card (B = 16384, D = 3 or 128, H = 128): one step
+// has no recurrence to keep on chip, so its bytes, 17-21 MB in and out
+// (about 5-6 µs at 3.35 TB/s), against 2.4-4.3 GFLOP of products (2.5-4.4
+// µs on mma.sync at 600-650 TFLOP/s) and the cell's exact sigmoids and
+// tanhs; and W (150-264 KB), which every block reads from L2.
+// What the design does about it:
+//   * A block of CELL_THREADS = 512 threads holds R = 32 · (256 / H) rows
+//     (64 at H = 128; H % 16 == 0, H <= 256) as z = [x padded to whole k16
+//     steps | h] in bf16 (the row stride of ldz_of, ldmatrix's eight rows on
+//     distinct banks), staged by cp.async (by element where x or h is not
+//     16-byte aligned); its (R / 32) · (H / 16) <= 16 warp tiles are the
+//     encoders' Tile<2>, 32 rows x 16 units of all four gates, so a lane's
+//     accumulators hold the four gates of its (row, unit) pairs and the cell
+//     (the encoders' cell) runs in registers; warps past the tiles only copy.
+//   * W is read as stored, with no pack, so the k-loop is not product's (which
+//     reads W packed in fragment order, once a call): W streams from L2
+//     through a ring of CELL_STAGES chunks of two k16 steps (32 k-rows x 4H
+//     columns; one at H > 128) by cp.async, three in flight (100 KB at H =
+//     128) while the warps run the product on one, one barrier a chunk; a
+//     warp's B fragments of gate q come by ldmatrix.trans from the columns
+//     q·H + its units. The k-rows of x's last k16 step past D are zeros in
+//     the stage, as x's columns past D are in z.
+//   * c and the bias load as bf16 pairs before the product; the cell takes
+//     them from the registers and writes h and c out in bf16 pairs.
+constexpr int CELL_THREADS = 512;
+constexpr int CELL_STAGES = 4;  // chunks of the ring
+
+__host__ __device__ inline bool cell_takes(int h) { return h >= 16 && h <= 256 && h % 16 == 0; }
+__host__ __device__ inline int cell_rows(int h) { return 32 * (256 / h); }
+__host__ __device__ inline int cell_ldw(int h) { return 4 * h + 8; }  // bf16 row stride of a ring stage
+// k16 steps of W a chunk of the ring: two, one past H = 128
+__host__ __device__ inline int cell_ksteps(int h) { return h <= 128 ? 2 : 1; }
+// dynamic shared memory of a cell block: z, then the ring
+__host__ __device__ inline long long cell_smem_bytes(int d, int h) {
+  return 2LL * cell_rows(h) * ldz_of(d, h, 1) + 2LL * CELL_STAGES * cell_ksteps(h) * 16 * cell_ldw(h);
+}
+
+// One step of the block's R rows (blockIdx.x · R ..); every thread of the
+// block calls it.
+__device__ __forceinline__ void cell_step(const bf16* __restrict__ x, const bf16* __restrict__ h,
+                                          const bf16* __restrict__ c, const bf16* __restrict__ w,
+                                          const bf16* __restrict__ b, bf16* __restrict__ h_out,
+                                          bf16* __restrict__ c_out, int B, int D, int H) {
+  using TL = Tile<2>;
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int R = cell_rows(H), kx = kx_of(D), ldz = ldz_of(D, H, 1), ldw = cell_ldw(H);
+  const long long row0 = (long long)blockIdx.x * R;
+  const int nrows = (int)min((long long)R, (long long)B - row0);
+  bf16* z = reinterpret_cast<bf16*>(smem4);
+  bf16* ring = z + (size_t)R * ldz;
+  const int xsteps = kx / 16, steps = xsteps + H / 16;
+
+  // z: 8 columns a piece of x (width D, padded to kx) and of h, rows past
+  // the batch and x's columns past D zero; by cp.async where the source is
+  // whole 16-byte pieces, else by element
+  auto stage = [&](const bf16* src, int width, int padded, int zcol, bool vec) {
+    for (int i = tid; i < R * (padded / 8); i += CELL_THREADS) {
+      const int r = i / (padded / 8), col = (i % (padded / 8)) * 8;
+      bf16* dst = z + (size_t)r * ldz + zcol + col;
+      if (vec) {
+        const bool ok = r < nrows && col < width;
+        cp_async16(dst, ok ? src + (row0 + r) * width + col : src, ok);
+      } else {
+        __align__(16) bf16 v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = r < nrows && col + e < width ? src[(row0 + r) * width + col + e] : __float2bfloat16_rn(0.0f);
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+      }
+    }
+  };
+  const auto whole = [](const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; };
+  stage(x, D, kx, 0, D % 8 == 0 && whole(x));
+  stage(h, H, H, kx, whole(h));
+  cp_async_commit();
+  // chunk ch of the ring: W's k16 steps kst·ch .. (x's rows, then h's), 4H
+  // columns
+  const int kst = cell_ksteps(H), chunks = (steps + kst - 1) / kst;
+  auto issue = [&](int ch) {
+    if (ch < chunks) {
+      bf16* stg = ring + (size_t)(ch % CELL_STAGES) * kst * 16 * ldw;
+      for (int i = tid; i < kst * 16 * (H / 2); i += CELL_THREADS) {
+        const int r = i / (H / 2), col = (i % (H / 2)) * 8;
+        const int s = ch * kst + r / 16;
+        const int k0 = s < xsteps ? 16 * s : D + 16 * (s - xsteps);
+        const int valid = s >= steps ? 0 : s < xsteps ? min(16, D - 16 * s) : 16;  // W rows of the step
+        const bool ok = r % 16 < valid;
+        cp_async16(stg + (size_t)r * ldw + col, ok ? w + (size_t)(k0 + r % 16) * 4 * H + col : w, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int ch = 0; ch < CELL_STAGES - 1; ++ch) issue(ch);
+
+  // the warp's tile: rows r0 .. r0 + 31, units u0 .. u0 + 15
+  const int bands = H / TL::UNITS;
+  const bool tiled = warp < R / TL::ROWS * bands;
+  const int r0 = warp / bands * TL::ROWS, u0 = warp % bands * TL::UNITS;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  // c and the bias of the lane's pairs (bf16 pairs), loaded before the product
+  __nv_bfloat162 cv[2][TL::UT][2], bv[TL::UT][4];
+  if (tiled) {
+#pragma unroll
+    for (int ut = 0; ut < TL::UT; ++ut) {
+      const int unit = u0 + 8 * ut + 2 * t4;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) bv[ut][q] = *reinterpret_cast<const __nv_bfloat162*>(b + q * H + unit);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = r0 + 16 * mt + g8 + 8 * hh;
+          cv[mt][ut][hh] = r < nrows ? *reinterpret_cast<const __nv_bfloat162*>(c + (row0 + r) * H + unit)
+                                     : __floats2bfloat162_rn(0.0f, 0.0f);
+        }
+    }
+  }
+  float acc[2][TL::UT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int ut = 0; ut < TL::UT; ++ut)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][ut][q][e] = 0.0f;
+  const bf16* a_lane = z + (size_t)(r0 + (lane & 15)) * ldz + (lane >> 4) * 8;
+  const int w_lane = (lane & 15) * ldw + u0 + (lane >> 4) * 8;
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait<CELL_STAGES - 2>();
+    __syncthreads();  // chunk ch landed for every thread; the stage of chunk ch - 1 is free
+    issue(ch + CELL_STAGES - 1);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int s = ch * kst + j;
+      if (tiled && j < kst && s < steps) {
+        const int kz = s < xsteps ? 16 * s : kx + 16 * (s - xsteps);  // z's column of the step
+        unsigned a[2][4], bq[4][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) ldsm_x4(a[mt], a_lane + (size_t)mt * 16 * ldz + kz);
+        const bf16* ws = ring + ((size_t)(ch % CELL_STAGES) * kst + j) * 16 * ldw + w_lane;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ldsm_x4_trans(bq[q], ws + q * H);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            mma_bf16(acc[mt][0][q], a[mt], bq[q][0], bq[q][1]);
+            mma_bf16(acc[mt][1][q], a[mt], bq[q][2], bq[q][3]);
+          }
+      }
+    }
+  }
+  if (!tiled) return;
+  // the cell on the accumulators; h and c out in bf16 pairs, rows past the
+  // batch not written
+  auto out_pair = [&](bf16* dst, int row, int unit, float v0, float v1) {
+    if (row < nrows) *reinterpret_cast<__nv_bfloat162*>(dst + (row0 + row) * H + unit) = __floats2bfloat162_rn(v0, v1);
+  };
+  cell<2>(
+      acc, r0, u0, lane, [&](int ut, int q, int) { return __bfloat1622float2(bv[ut][q]); },
+      [&](int mt, int ut) {
+        const float2 lo = __bfloat1622float2(cv[mt][ut][0]), hi = __bfloat1622float2(cv[mt][ut][1]);
+        return make_float4(lo.x, lo.y, hi.x, hi.y);
+      },
+      [&](int mt, int ut, float4 cn) {
+        const int row = r0 + 16 * mt + g8, unit = u0 + 8 * ut + 2 * t4;
+        out_pair(c_out, row, unit, cn.x, cn.y);
+        out_pair(c_out, row + 8, unit, cn.z, cn.w);
+      },
+      [&](int row, int unit, float h0, float h1) { out_pair(h_out, row, unit, h0, h1); });
 }
 
 }  // namespace lstm_mma

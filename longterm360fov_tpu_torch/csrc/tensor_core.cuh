@@ -1,7 +1,8 @@
 // The tensor-core instructions that the hand-written kernels use on Hopper
-// (sm_90a), shared by the LSTM dW product (lstm_common.cuh), the
-// transformer encoder's bf16 tier (transformer_mma.cuh) and its f32 tier
-// (transformer_f32mma.cuh):
+// (sm_90a), shared by the LSTM dW product (lstm_common.cuh), the bf16 LSTM
+// encoders and cell (lstm_mma.cuh), the transformer encoder's bf16 tier
+// (transformer_mma.cuh) and its f32 tier (transformer_f32mma.cuh), and the
+// cp.async copies that feed the LSTM kernels' shared memory:
 //   * ldsm_x4 / ldsm_x4_trans: ldmatrix of four 8 x 8 tiles of 16-bit values
 //     from shared memory, lane l giving the address of row l % 8 of tile
 //     l / 8 (16-byte aligned); .trans hands each lane the transposed tile's
@@ -62,3 +63,23 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], 
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// 16 bytes from device to shared memory that do not wait (cp.async.cg); 16
+// bytes of zeros when !ok (source size 0)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(ok ? 16 : 0));  // src size 0: 16 bytes of zeros
+}
+// 4 bytes (cp.async.ca: the size .cg does not take); zeros when !ok
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// every group but the newest N complete
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }

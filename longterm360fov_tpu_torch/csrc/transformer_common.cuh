@@ -159,6 +159,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 #endif
 }
 
+// every group but the newest N complete
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
 // out = A · W[:, n0 : n0 + 128] for the block's 64 rows: A (64, K) in shared
 // memory with row stride lda (K a multiple of the stage's k rows); W (K,
 // ldw) row-major in device memory, stored in T. Every block reads the same

@@ -72,57 +72,41 @@
 // activation operand rounded to bf16 where it is written (the LN outputs,
 // the attention outputs less δv, the GELU output, the fed-back y), f32
 // sums; LN, softmax, q, GELU, δv and the residual stream in f32
-// (Store<T>, transformer_common.cuh). It is the same kernel body instanced
-// on the stored type. It halves the K/V bytes that bound the per-row tier
-// (about 75 GB re-read at B = 16384 for transformer-30); its products could
-// run on the tensor cores at 989 TFLOP/s, which this FMA design does not.
+// (Store<T>, transformer_common.cuh). It halves the K/V bytes that bound the
+// per-row tier (about 80 GB re-read at B = 16384 for transformer-30). Its
+// body is decode_rows_mma (transformer_decode_mma.cuh): the products on the
+// tensor cores (mma.sync bf16), 64- or 32-row blocks of 16 warps chosen by
+// the wrapper, and the attention two tokens a warp in 16-byte pieces, G at
+// a time a half-warp. Before, it was the FMA body below instanced on bf16, which a
+// build with -DDEC_FMA still launches (scripts/torch_decode_bf16_probe.py
+// times the two in turns; the wrapper never loads that build).
 // The JAX shared tier rounds q and the softmax weights to bf16 for its MXU
 // products; here every tier attends with f32 q and weights.
-// Later work (not here): keeping a block's K/V on chip across steps, the
-// products on the tensor cores.
+// A probe build (-DTFM_PROBE) splits each block's clocks by part
+// (transformer_probe.cuh's DecPart), read by transformer_decode_probe_read.
+// Later work (not here): keeping a block's K/V on chip across steps.
 
-#include "transformer_common.cuh"
+#include <type_traits>
 
-#define MAX_LAYERS 8
-#define MAX_D 4
+#include "transformer_decode_mma.cuh"
 
 namespace {
 
 using namespace tfm;
 
-// a layer's weights and projected memories: ln1 scale and bias; self wq,
-// wk, wv, wo; ln2; cross wq, wo and the cross K, V (batch, t_in, H); ln3;
-// peer wq, wo and the peer K, V (batch, kt, H) (null without peers); ln4;
-// w1, b1, w2, b2
-enum DecPtr {
-  LN1_S, LN1_B, S_WQ, S_WK, S_WV, S_WO,
-  LN2_S, LN2_B, C_WQ, C_WO, C_K, C_V,
-  LN3_S, LN3_B, P_WQ, P_WO, P_K, P_V,
-  LN4_S, LN4_B, W1, B1, W2, B2, DEC_PTRS
-};
-
-struct DecParams {
-  const float* layer[MAX_LAYERS][DEC_PTRS];
-  const float* w_in;   // (d, H)
-  const float* w_out;  // (H, d)
-  const float* b_out;  // (d,)
-  const float* fln_s;  // final LN scale, bias (H,)
-  const float* fln_b;
-  const float* pos;    // (t_out, H) positional encoding
-};
-
-// T: the stored type of the matrices, the cross and peer K/V and the self
-// cache (Store<T>): float, or __nv_bfloat16 for the bf16 tier, whose
-// activation operands are rounded to bf16 where they are written
+// The FMA body, the f32 tier's (and, in a -DDEC_FMA build, the bf16
+// tier's): a block of ROWS = 64 rows, THREADS = 256. T: the stored type of
+// the matrices, the cross and peer K/V and the self cache (Store<T>): float,
+// or __nv_bfloat16, whose activation operands are rounded to bf16 where
+// they are written.
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
-                 const unsigned char* __restrict__ peer_valid,
-                 const int* __restrict__ peer_gid,
-                 const float* __restrict__ peer_dv, T* self_kv, float* __restrict__ out, int batch,
-                 int layers, int t_in, int t_out, int d, int kt, int window,
-                 int seg) {
-  extern __shared__ float4 smem4[];
+__device__ __forceinline__ void decode_rows_fma(const DecParams& p, const float* __restrict__ y0,
+                                                const unsigned char* __restrict__ peer_valid,
+                                                const int* __restrict__ peer_gid,
+                                                const float* __restrict__ peer_dv, T* self_kv,
+                                                float* __restrict__ out, int batch, int layers, int t_in,
+                                                int t_out, int d, int kt, int window, int seg, float4* smem4) {
+  Probe pr(g_dec_probe);
   float* xs = reinterpret_cast<float*>(smem4);
   float* hs = xs + ROWS * LDX;
   float* big = hs + ROWS * LDX;
@@ -138,10 +122,10 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
   const size_t layer_stride = (size_t)batch * t_out * H;  // one layer's self K (or V)
 
   zero_smem(xs, SMEM_FLOATS + ROWS * MAX_D);
-  __syncthreads();
+  sync_dec(pr, DP_IO);
   for (int e = threadIdx.x; e < nrows * d; e += THREADS)
     ys[(e / d) * MAX_D + e % d] = y0[(size_t)b0 * d + e];
-  __syncthreads();
+  sync_dec(pr, DP_IO);
 
   auto store_to = [](float* dst) {
     return [dst](int r0, int c0, const float (&acc)[4][8]) {
@@ -170,16 +154,16 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
         acc = fmaf(Store<T>::round(ys[r * MAX_D + i]), Store<T>::ldg1(w_in + i * H + n), acc);
       xs[r * LDX + n] = acc + __ldg(p.pos + t * H + n);
     }
-    __syncthreads();
+    sync_dec(pr, DP_IO);
     for (int l = 0; l < layers; ++l) {
       const float* const* w = p.layer[l];
       // -- self attention over the cache, this step's k, v appended
       layer_norm<T>(xs, hs, w[LN1_S], w[LN1_B]);
-      __syncthreads();
+      sync_dec(pr, DP_EPI);
       gemm64(hs, LDX, H, as<T>(w[S_WQ]), H, 0, ws, store_to(qb));
       gemm64(hs, LDX, H, as<T>(w[S_WK]), H, 0, ws, store_to(kb));
       gemm64(hs, LDX, H, as<T>(w[S_WV]), H, 0, ws, store_to(vb));
-      __syncthreads();
+      sync_dec(pr, DP_PROD);
       for (int r = warp; r < nrows; r += THREADS / 32) {
         const size_t row = ((size_t)l * batch + b0 + r) * t_out * H;
         T* kc = self_kv + row;
@@ -195,14 +179,14 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
         a.add(k, v);
         *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = round4<T>(a.out());
       }
-      __syncthreads();
+      sync_dec(pr, DP_SELF);
       gemm64(ab, LDX, H, as<T>(w[S_WO]), H, 0, ws, add_to_x);
-      __syncthreads();
+      sync_dec(pr, DP_PROD);
       // -- cross attention over the encoder's K/V
       layer_norm<T>(xs, hs, w[LN2_S], w[LN2_B]);
-      __syncthreads();
+      sync_dec(pr, DP_EPI);
       gemm64(hs, LDX, H, as<T>(w[C_WQ]), H, 0, ws, store_to(qb));
-      __syncthreads();
+      sync_dec(pr, DP_PROD);
       for (int r = warp; r < nrows; r += THREADS / 32) {
         const size_t row = (size_t)(b0 + r) * t_in * H;
         Attend a;
@@ -210,15 +194,15 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
         a.range<true, 8>(as<T>(w[C_K]) + row, as<T>(w[C_V]) + row, H, 0, t_in, nullptr);
         *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = round4<T>(a.out());
       }
-      __syncthreads();
+      sync_dec(pr, DP_CROSS);
       gemm64(ab, LDX, H, as<T>(w[C_WO]), H, 0, ws, add_to_x);
-      __syncthreads();
+      sync_dec(pr, DP_PROD);
       // -- peer attention over the valid (and in-window) peer tokens
       if (kt > 0) {
         layer_norm<T>(xs, hs, w[LN3_S], w[LN3_B]);
-        __syncthreads();
+        sync_dec(pr, DP_EPI);
         gemm64(hs, LDX, H, as<T>(w[P_WQ]), H, 0, ws, store_to(qb));
-        __syncthreads();
+        sync_dec(pr, DP_PROD);
         for (int r = warp; r < nrows; r += THREADS / 32) {
           // the row's own peer memory, or its group's
           const size_t row = (size_t)(peer_gid ? __ldg(peer_gid + b0 + r) : b0 + r) * kt;
@@ -244,13 +228,13 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
           }
           *reinterpret_cast<float4*>(ab + r * LDX + 4 * lane) = round4<T>(o);
         }
-        __syncthreads();
+        sync_dec(pr, DP_PEER);
         gemm64(ab, LDX, H, as<T>(w[P_WO]), H, 0, ws, add_to_x);
-        __syncthreads();
+        sync_dec(pr, DP_PROD);
       }
       // -- MLP: u = gelu(LN4(x) · W1 + b1) into big, then x += u · W2 + b2
       layer_norm<T>(xs, hs, w[LN4_S], w[LN4_B]);
-      __syncthreads();
+      sync_dec(pr, DP_EPI);
       const float* b1 = w[B1];
       auto gelu_to_u = [big, b1](int r0, int c0, const float (&acc)[4][8]) {
 #pragma unroll
@@ -260,7 +244,7 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
             big[(r0 + r) * LDU + c0 + c] = Store<T>::round(gelu_tanh(acc[r][c] + __ldg(b1 + c0 + c)));
       };
       for (int n0 = 0; n0 < MLP; n0 += H) gemm64(hs, LDX, H, as<T>(w[W1]), MLP, n0, ws, gelu_to_u);
-      __syncthreads();
+      sync_dec(pr, DP_PROD);
       const float* b2 = w[B2];
       auto mlp_to_x = [xs, b2](int r0, int c0, const float (&acc)[4][8]) {
 #pragma unroll
@@ -269,11 +253,11 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
           for (int c = 0; c < 8; ++c) xs[(r0 + r) * LDX + c0 + c] += acc[r][c] + __ldg(b2 + c0 + c);
       };
       gemm64(big, LDU, MLP, as<T>(w[W2]), H, 0, ws, mlp_to_x);
-      __syncthreads();
+      sync_dec(pr, DP_PROD);
     }
     // y = LN_f(x) · Wout + bout: out[b, t], and the next step's token
     layer_norm<T>(xs, hs, p.fln_s, p.fln_b);
-    __syncthreads();
+    sync_dec(pr, DP_EPI);
     for (int r = warp; r < nrows; r += THREADS / 32) {
       const float4 h = *reinterpret_cast<const float4*>(hs + r * LDX + 4 * lane);
       for (int i = 0; i < d; ++i) {
@@ -289,12 +273,60 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
         }
       }
     }
-    __syncthreads();
+    sync_dec(pr, DP_IO);
   }
 }
 
-// One launch on `stream`: grid ceil(batch / 64) blocks of 256 threads,
-// 210,944 + 1,024 bytes of dynamic shared memory. y0 (batch, d) f32,
+// Does the tier of T run the FMA body: the f32 tier always, the bf16 tier
+// only in a -DDEC_FMA build (the design before the tensor cores, kept for
+// scripts/torch_decode_bf16_probe.py's comparison in turns)
+template <typename T>
+__host__ __device__ constexpr bool fma_body() {
+#ifdef DEC_FMA
+  return true;
+#else
+  return std::is_same<T, float>::value;
+#endif
+}
+
+// threads of a block of R rows
+template <typename T, int R>
+__host__ __device__ constexpr int block_threads() { return fma_body<T>() ? THREADS : dec::Shape<R>::THREADS; }
+
+// dynamic shared memory of a block, bytes
+template <typename T, int R>
+__host__ __device__ constexpr int smem_bytes() {
+  return fma_body<T>() ? (SMEM_FLOATS + ROWS * MAX_D) * (int)sizeof(float) : dec::Shape<R>::SMEM;
+}
+
+// T: the stored type of the matrices, the cross and peer K/V and the self
+// cache; R: the rows of a block of the bf16 body (the FMA body's are ROWS)
+template <typename T, int R>
+__global__ void __launch_bounds__(block_threads<T, R>(), 1)
+ar_decode_kernel(const DecParams p, const DecArgs g, T* self_kv) {
+  extern __shared__ float4 smem4[];
+  if constexpr (fma_body<T>())
+    decode_rows_fma<T>(p, g.y0, g.peer_valid, g.peer_gid, g.peer_dv, self_kv, g.out, g.batch, g.layers, g.t_in,
+                       g.t_out, g.d, g.kt, g.window, g.seg, smem4);
+  else
+    dec::decode_rows_mma<R>(p, g, self_kv, reinterpret_cast<unsigned char*>(smem4));
+}
+
+template <typename T, int R>
+int launch_rows(const DecParams& p, const DecArgs& g, void* self_kv, cudaStream_t stream) {
+  const int smem = smem_bytes<T, R>();
+  cudaError_t err = cudaFuncSetAttribute(ar_decode_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = fma_body<T>() ? ROWS : R;
+  ar_decode_kernel<T, R><<<(g.batch + rows - 1) / rows, block_threads<T, R>(), smem, stream>>>(
+      p, g, static_cast<T*>(self_kv));
+  return (int)cudaGetLastError();
+}
+
+// One launch on `stream`. The f32 tier: grid ceil(batch / 64) blocks of 256
+// threads, 210,944 + 1,024 bytes of dynamic shared memory; the bf16 tier:
+// blocks of `rows` = 64 or 32 rows (512 threads, 223,232 or 146,432 bytes;
+// any other value is refused). y0 (batch, d) f32,
 // peer_valid (batch, kt) bytes (0 = masked; null when kt = 0), self_kv
 // (2, layers, batch, t_out, 128) scratch, out (batch, t_out, d) f32;
 // layer_ptrs holds 24 device pointers a layer in DecPtr's order (the peer
@@ -309,13 +341,14 @@ ar_decode_kernel(const DecParams p, const float* __restrict__ y0,
 // cudaErrorInvalidValue for a shape the kernel does not take.
 template <typename T>
 int launch(const void* y0, const void* peer_valid, const void* peer_gid, const void* peer_dv,
-                  void* self_kv, void* out, const void* const* layer_ptrs, const void* w_in,
-                  const void* w_out, const void* b_out, const void* fln_s, const void* fln_b,
-                  const void* pos, int batch, int layers, int t_in, int t_out, int d, int kt,
-                  int window, int seg, void* stream) {
+           void* self_kv, void* out, const void* const* layer_ptrs, const void* w_in,
+           const void* w_out, const void* b_out, const void* fln_s, const void* fln_b,
+           const void* pos, int batch, int layers, int t_in, int t_out, int d, int kt,
+           int window, int seg, int rows, void* stream) {
   if (batch < 1 || layers < 1 || layers > MAX_LAYERS || t_in < 1 || t_out < 1 || d < 1 ||
       d > MAX_D || kt < 0 || (kt > 0 && (peer_valid == nullptr || seg < 1)) ||
-      ((peer_gid != nullptr || peer_dv != nullptr) && kt == 0) || (peer_dv != nullptr && peer_gid == nullptr))
+      ((peer_gid != nullptr || peer_dv != nullptr) && kt == 0) || (peer_dv != nullptr && peer_gid == nullptr) ||
+      (rows != 64 && rows != 32))
     return (int)cudaErrorInvalidValue;
   DecParams p = {};
   for (int l = 0; l < layers; ++l)
@@ -327,16 +360,14 @@ int launch(const void* y0, const void* peer_valid, const void* peer_gid, const v
   p.fln_s = static_cast<const float*>(fln_s);
   p.fln_b = static_cast<const float*>(fln_b);
   p.pos = static_cast<const float*>(pos);
-  const size_t smem = (SMEM_FLOATS + ROWS * MAX_D) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ar_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (batch + ROWS - 1) / ROWS;
-  ar_decode_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const float*>(y0), static_cast<const unsigned char*>(peer_valid),
-      static_cast<const int*>(peer_gid), static_cast<const float*>(peer_dv), static_cast<T*>(self_kv),
-      static_cast<float*>(out), batch, layers, t_in, t_out, d, kt, window, seg);
-  return (int)cudaGetLastError();
+  const DecArgs g = {static_cast<const float*>(y0), static_cast<const unsigned char*>(peer_valid),
+                     static_cast<const int*>(peer_gid), static_cast<const float*>(peer_dv),
+                     static_cast<float*>(out), batch, layers, t_in, t_out, d, kt, window, seg};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (fma_body<T>())
+    return launch_rows<T, 64>(p, g, self_kv, st);
+  else
+    return rows == 64 ? launch_rows<T, 64>(p, g, self_kv, st) : launch_rows<T, 32>(p, g, self_kv, st);
 }
 
 }  // namespace
@@ -350,22 +381,35 @@ int transformer_decode_f32(const void* y0, const void* peer_valid, const void* p
                            const void* pos, int batch, int layers, int t_in, int t_out, int d,
                            int kt, int window, int seg, void* stream) {
   return launch<float>(y0, peer_valid, peer_gid, peer_dv, self_kv, out, layer_ptrs, w_in, w_out, b_out,
-                       fln_s, fln_b, pos, batch, layers, t_in, t_out, d, kt, window, seg, stream);
+                       fln_s, fln_b, pos, batch, layers, t_in, t_out, d, kt, window, seg, 64, stream);
 }
 
+// The bf16 tier, in blocks of `rows` (64 or 32) rows: ops/transformer_decode.py
+// decode_rows chooses them from the batch.
 int transformer_decode_bf16(const void* y0, const void* peer_valid, const void* peer_gid,
                             const void* peer_dv, void* self_kv, void* out,
                             const void* const* layer_ptrs, const void* w_in, const void* w_out,
                             const void* b_out, const void* fln_s, const void* fln_b,
                             const void* pos, int batch, int layers, int t_in, int t_out, int d,
-                            int kt, int window, int seg, void* stream) {
+                            int kt, int window, int seg, int rows, void* stream) {
   return launch<__nv_bfloat16>(y0, peer_valid, peer_gid, peer_dv, self_kv, out, layer_ptrs, w_in, w_out,
-                               b_out, fln_s, fln_b, pos, batch, layers, t_in, t_out, d, kt, window, seg,
+                               b_out, fln_s, fln_b, pos, batch, layers, t_in, t_out, d, kt, window, seg, rows,
                                stream);
+}
+
+// the dynamic shared memory of a block of the bf16 tier's body at `rows`
+// rows (64 or 32; the FMA body's in a -DDEC_FMA build), bytes
+int transformer_decode_smem_bytes(int rows) {
+  return rows == 32 ? smem_bytes<__nv_bfloat16, 32>() : smem_bytes<__nv_bfloat16, 64>();
 }
 
 const char* transformer_decode_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// The probe build's clock counters (tfm::DecPart order, tfm::DEC_PARTS of
+// them) since the last read, summed over blocks, into out (host memory);
+// zeroes them. Without TFM_PROBE, zeros.
+int transformer_decode_probe_read(unsigned long long* out) { return probe_read(tfm::g_dec_probe, out); }
 
 }  // extern "C"

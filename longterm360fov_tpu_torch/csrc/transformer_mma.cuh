@@ -17,22 +17,12 @@
 //   hb   (64, LDB)  bf16  LN1's output, then the attention output, then
 //                    LN2's output: each is dead when the next is written
 //   ring STAGES x (KC, LDB) bf16  the weight stream
-// The bf16 row strides LDB = 136 and LDUB = 520 (272 and 1,040 bytes, 16
-// more than a multiple of 128) put the 8 rows that one ldmatrix tile reads
-// on distinct banks.
 //
-// The products (gemm64_mma): out[64, 128] = A[64, K] · W[K, n0 : n0 + 128],
-// A bf16 in shared memory, on mma.sync m16n8k16 with f32 accumulators; warp
-// w owns the 16 x 32 tile at rows 16·(w % 4), columns 32·(w / 4): per 16
-// k-rows one ldmatrix of A, two ldmatrix.trans of W (read as stored, (K, N)
-// row-major) and four mma, the next 16 k-rows' fragments loading during
-// them. W arrives through the weight stream: the layer's products read their
-// weights in a fixed order (Wq, Wk, Wv, Wo, W1's four 128-column slabs,
-// W2), cut into 12 chunks of KC = 128 k-rows x 128 columns (32 KB of bf16);
-// the chunks of every layer go through a ring of STAGES = 2 stages by
-// cp.async, the next chunk in flight while the block computes on one, also
-// across the attention and the layer norms. One block barrier a chunk. The
-// epilogue hands each thread's f32 sums, two columns at a time, to a
+// The products: transformer_stream.cuh's gemm_mma<64> (warp w the 16 x 32
+// tile at rows 16·(w % 4), columns 32·(w / 4)) through its weight stream in
+// the layer's fixed order (EncOrder: Wq, Wk, Wv, Wo, W1's four 128-column
+// slabs, W2), 12 chunks of 128 x 128 a layer, one block barrier a chunk.
+// The epilogue hands each thread's f32 sums, two columns at a time, to a
 // callback: the q, k, v stores, the residual adds, b1 + GELU rounded to
 // bf16.
 //
@@ -46,21 +36,11 @@
 
 #pragma once
 
-#include "tensor_core.cuh"
 #include "transformer_encode.cuh"
-#include "transformer_probe.cuh"
+#include "transformer_stream.cuh"
 
 namespace tfm {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int MMA_THREADS = 512;
-constexpr int MMA_WARPS = MMA_THREADS / 32;
-constexpr int LDB = H + 8;     // bf16 row stride of hb and of a ring stage
-constexpr int LDUB = MLP + 8;  // bf16 row stride of u
-constexpr int KC = 128;        // k-rows of W a chunk
-constexpr int STAGES = 2;      // chunks of the ring
-constexpr int CHUNK = KC * LDB;  // bf16 elements of a stage
 // a layer's chunks: Wq, Wk, Wv, Wo (H / KC each), W1 (MLP / H slabs of
 // H / KC), W2 (MLP / KC)
 constexpr int LAYER_CHUNKS = 4 * (H / KC) + (MLP / H) * (H / KC) + MLP / KC;
@@ -71,27 +51,16 @@ constexpr int MMA_SMEM_BYTES =
 static_assert(ROWS * LDUB * sizeof(bf16) <= 3 * ROWS * LDX * sizeof(float), "u does not fit over q, k, v");
 static_assert(MMA_SMEM_BYTES <= 232448, "a block may have 227 KB of shared memory");
 static_assert(MMA_MAX_D * H <= ROWS * LDX, "past and in_proj fit over q and v");
-static_assert(MMA_WARPS == (ROWS / 16) * (H / 32), "a warp a 16 x 32 tile of a product");
 static_assert(MMA_THREADS == 2 * HEADS * ROWS, "two threads a (row, head) of the attention");
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-#endif
-}
-
-// The weight stream: chunk g = l · LAYER_CHUNKS + j of the kernel goes to
-// ring stage g % STAGES; issue() copies the next chunk (an empty group past
-// the last), so that a chunk's group is always STAGES - 1 groups back.
-struct WeightStream {
+// The layer's weights in the order its products read them: chunk g of the
+// kernel is chunk j = g % LAYER_CHUNKS of layer g / LAYER_CHUNKS.
+struct EncOrder {
   const EncParams* p;
-  int total;  // chunks of all layers
-  bf16* ring;
-  int next;   // the chunk issue() copies
 
-  // chunk j of a layer: its first k-row of W, as the layer's products read it
-  __device__ __forceinline__ const bf16* source(const float* const* w, int j, int& ldw) const {
+  __device__ __forceinline__ const bf16* source(int g, int& ldw) const {
+    const float* const* w = p->layer[g / LAYER_CHUNKS];
+    int j = g % LAYER_CHUNKS;
     if (j < 4 * (H / KC)) {  // Wq, Wk, Wv, Wo: (H, H)
       ldw = H;
       return as<bf16>(w[WQ + j / (H / KC)]) + (size_t)(j % (H / KC)) * KC * H;
@@ -105,98 +74,7 @@ struct WeightStream {
     ldw = H;  // W2 (MLP, H)
     return as<bf16>(w[W2]) + (size_t)j * KC * H;
   }
-
-  __device__ __forceinline__ void issue() {
-    if (next < total) {
-      int ldw;
-      const bf16* src = source(p->layer[next / LAYER_CHUNKS], next % LAYER_CHUNKS, ldw);
-      bf16* dst = ring + (next % STAGES) * CHUNK;
-      // KC rows x 128 columns: 16 pieces of 16 bytes a row
-#pragma unroll
-      for (int i = threadIdx.x; i < KC * 16; i += MMA_THREADS) {
-        const int r = i >> 4, c = (i & 15) * 8;
-        cp_async16(dst + r * LDB + c, src + (size_t)r * ldw + c);
-      }
-    }
-    cp_async_commit();
-    ++next;
-  }
 };
-
-// out = A · W[:, n0 : n0 + 128] for the block's 64 rows, W the next K / KC
-// chunks of the weight stream; A (64, K) bf16 in shared memory, row stride
-// lda. epi(row, col, v0, v1) receives the f32 sums of columns col and
-// col + 1 (col absolute, even). Block-wide: every thread calls it; it waits
-// at one barrier a chunk, which also orders the writes of A before it.
-template <typename Epi>
-__device__ __forceinline__ void gemm64_mma(const bf16* A, int lda, int K, int n0, WeightStream& ws, Probe& pr,
-                                           int epi_part, Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp & 3) * 16, wn = (warp >> 2) * 32;
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  // ldmatrix addresses: A tiles (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15),
-  // (8-15, 8-15); W tiles (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15),
-  // (k 8-15, n 8-15)
-  const bf16* a_lane = A + (wm + (lane & 15)) * lda + (lane >> 4) * 8;
-  const int w_lane = (lane & 15) * LDB + wn + (lane >> 4) * 8;
-  unsigned a[2][4], b[2][2][4];  // [k-step parity]: the next k-step's fragments load during this one's mma
-  auto load = [&](int buf, const bf16* a_k, const bf16* w_k) {
-    ldsm_x4(a[buf], a_k);
-#pragma unroll
-    for (int np = 0; np < 2; ++np) ldsm_x4_trans(b[buf][np], w_k + np * 16);
-  };
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // the chunk landed for every thread; the stage before it is free
-    pr.mark(P_WAIT);
-    const bf16* wsm = ws.ring + ((ws.next - (STAGES - 1)) % STAGES) * CHUNK + w_lane;
-    ws.issue();
-    load(0, a_lane + k0, wsm);
-#pragma unroll
-    for (int s = 0; s < KC / 16; ++s) {
-      const int cur = s & 1;
-      if (s + 1 < KC / 16) load(cur ^ 1, a_lane + k0 + (s + 1) * 16, wsm + (s + 1) * 16 * LDB);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        mma_bf16(acc[2 * np], a[cur], b[cur][np][0], b[cur][np][1]);
-        mma_bf16(acc[2 * np + 1], a[cur], b[cur][np][2], b[cur][np][3]);
-      }
-    }
-    pr.mark(P_MMA);
-  }
-  // accumulator nt: rows lane / 4 and + 8, columns 2 · (lane % 4) + 0, 1
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      epi(wm + (lane >> 2) + 8 * h, n0 + wn + nt * 8 + 2 * (lane & 3), acc[nt][2 * h], acc[nt][2 * h + 1]);
-  pr.mark(epi_part);
-}
-
-// Y[r] = LN(X[r]) rounded to bf16 for every row r of the block (a warp a
-// row): layer_norm<bf16>'s arithmetic, stored in bf16 with row stride LDB
-__device__ __forceinline__ void layer_norm_bf16(const float* X, bf16* Y, const float* __restrict__ scale,
-                                                const float* __restrict__ bias) {
-  const int lane = threadIdx.x & 31;
-  const float4 s = __ldg(reinterpret_cast<const float4*>(scale) + lane);
-  const float4 b = __ldg(reinterpret_cast<const float4*>(bias) + lane);
-#pragma unroll
-  for (int i = 0; i < ROWS / MMA_WARPS; ++i) {  // a warp's rows at once: their reductions interleave
-    const int r = (threadIdx.x >> 5) + i * MMA_WARPS;
-    const float4 x = *reinterpret_cast<const float4*>(X + r * LDX + 4 * lane);
-    const float mu = warp_sum((x.x + x.y) + (x.z + x.w)) / (float)H;
-    const float4 d = make_float4(x.x - mu, x.y - mu, x.z - mu, x.w - mu);
-    const float var = warp_sum((d.x * d.x + d.y * d.y) + (d.z * d.z + d.w * d.w)) / (float)H;
-    const float inv = 1.0f / sqrtf(var + 1e-6f);
-    *reinterpret_cast<uint2*>(Y + r * LDB + 4 * lane) =
-        make_uint2(Store<bf16>::pack(d.x * inv * s.x + b.x, d.y * inv * s.y + b.y),
-                   Store<bf16>::pack(d.z * inv * s.z + b.z, d.w * inv * s.w + b.w));
-  }
-}
 
 // Half of one head of one query row's bidirectional attention over its
 // viewer's t key rows (first..first + t - 1), in f32, by the two threads
@@ -286,7 +164,7 @@ __device__ __forceinline__ void encode_rows_mma(const EncParams& p, const float*
   float* vb = kb + ROWS * LDX;
   bf16* ub = reinterpret_cast<bf16*>(qb);
   bf16* hb = reinterpret_cast<bf16*>(vb + ROWS * LDX);
-  WeightStream ws{&p, layers * LAYER_CHUNKS, hb + ROWS * LDB, 0};
+  WeightStream<EncOrder> ws{{&p}, layers * LAYER_CHUNKS, hb + ROWS * LDB, 0};
   Probe pr(g_probe);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b0 = blockIdx.x * seqs;
@@ -335,11 +213,11 @@ __device__ __forceinline__ void encode_rows_mma(const EncParams& p, const float*
   };
   for (int l = 0; l < layers; ++l) {
     const float* const* w = p.layer[l];
-    layer_norm_bf16(xs, hb, w[LN1_S], w[LN1_B]);
+    layer_norm_bf16<ROWS>(xs, hb, w[LN1_S], w[LN1_B]);
     pr.mark(P_LN);
-    gemm64_mma(hb, LDB, H, 0, ws, pr, P_EPI, store_to(qb));
-    gemm64_mma(hb, LDB, H, 0, ws, pr, P_EPI, store_to(kb));
-    gemm64_mma(hb, LDB, H, 0, ws, pr, P_EPI, store_to(vb));
+    gemm_mma<ROWS>(hb, LDB, H, 0, ws, pr, P_WAIT, P_MMA, P_EPI, store_to(qb));
+    gemm_mma<ROWS>(hb, LDB, H, 0, ws, pr, P_WAIT, P_MMA, P_EPI, store_to(kb));
+    gemm_mma<ROWS>(hb, LDB, H, 0, ws, pr, P_WAIT, P_MMA, P_EPI, store_to(vb));
     sync_probe(pr);
     {  // thread (head, row, half); rows past the valid ones keep LN1's output
       const int half = threadIdx.x & 1, m = (threadIdx.x >> 1) % ROWS, head = threadIdx.x / (2 * ROWS);
@@ -350,9 +228,9 @@ __device__ __forceinline__ void encode_rows_mma(const EncParams& p, const float*
       }
     }
     pr.mark(P_ATT);
-    gemm64_mma(hb, LDB, H, 0, ws, pr, P_EPI, add_to_x);
+    gemm_mma<ROWS>(hb, LDB, H, 0, ws, pr, P_WAIT, P_MMA, P_EPI, add_to_x);
     sync_probe(pr);
-    layer_norm_bf16(xs, hb, w[LN2_S], w[LN2_B]);
+    layer_norm_bf16<ROWS>(xs, hb, w[LN2_S], w[LN2_B]);
     pr.mark(P_LN);
     // u = gelu(h · W1 + b1) rounded to bf16, 128 columns a product, over q, k, v
     const float* b1 = w[B1];
@@ -360,14 +238,14 @@ __device__ __forceinline__ void encode_rows_mma(const EncParams& p, const float*
       const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + c));
       *reinterpret_cast<unsigned*>(ub + r * LDUB + c) = Store<bf16>::pack(gelu_tanh(v0 + bb.x), gelu_tanh(v1 + bb.y));
     };
-    for (int n0 = 0; n0 < MLP; n0 += H) gemm64_mma(hb, LDB, H, n0, ws, pr, P_GELU, gelu_to_u);
+    for (int n0 = 0; n0 < MLP; n0 += H) gemm_mma<ROWS>(hb, LDB, H, n0, ws, pr, P_WAIT, P_MMA, P_GELU, gelu_to_u);
     const float* b2 = w[B2];
     auto mlp_to_x = [xs, b2](int r, int c, float v0, float v1) {
       const float2 bb = __ldg(reinterpret_cast<const float2*>(b2 + c));
       float2* x = reinterpret_cast<float2*>(xs + r * LDX + c);
       *x = make_float2(x->x + (v0 + bb.x), x->y + (v1 + bb.y));
     };
-    gemm64_mma(ub, LDUB, MLP, 0, ws, pr, P_EPI, mlp_to_x);
+    gemm_mma<ROWS>(ub, LDUB, MLP, 0, ws, pr, P_WAIT, P_MMA, P_EPI, mlp_to_x);
     sync_probe(pr);
   }
   // enc_mem rows out: a warp a row

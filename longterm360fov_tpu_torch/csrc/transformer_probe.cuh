@@ -1,8 +1,9 @@
-// The probe build of the transformer encoder's kernels (-DTFM_PROBE):
-// probe.cuh's in-kernel clock64 counters. Thread 0 of every block adds the
-// clocks it spends in each part of its work (Part) to g_probe; the
-// library's *_probe_read entry point copies the sums out and zeroes them.
-// Without TFM_PROBE the marks compile to nothing.
+// The probe build of the transformer kernels (-DTFM_PROBE): probe.cuh's
+// in-kernel clock64 counters. Thread 0 of every block adds the clocks it
+// spends in each part of its work to g_probe (the encoders' Part) or
+// g_dec_probe (the decoder's DecPart); the library's *_probe_read entry
+// point copies the sums out and zeroes them. Without TFM_PROBE the marks
+// compile to nothing.
 
 #pragma once
 
@@ -30,6 +31,22 @@ enum Part {
 };
 
 __device__ unsigned long long g_probe[PARTS];
+
+// the parts of the decoder's time split (transformer_decode.cu)
+enum DecPart {
+  DP_PROD,   // the products: their inner loops (the FMA design: the whole of gemm64,
+             // its slab waits, barriers and epilogue included)
+  DP_WAIT,   // the bf16 weight stream: waiting for a chunk
+  DP_EPI,    // the layer norms and the products' epilogues
+  DP_SELF,   // self attention over the cache, the cache writes included
+  DP_CROSS,  // cross attention over the encoder's K/V
+  DP_PEER,   // peer attention over the valid, in-window peer tokens, δv included
+  DP_IO,     // in_proj of the fed-back token, out_proj and the feedback
+  DP_BAR,    // block barriers between the phases
+  DEC_PARTS
+};
+
+__device__ unsigned long long g_dec_probe[DEC_PARTS];
 #ifdef TFM_PROBE
 using Probe = ClockProbe<true>;
 #else
@@ -39,6 +56,13 @@ using Probe = ClockProbe<false>;
 __device__ __forceinline__ void sync_probe(Probe& pr) {
   __syncthreads();
   pr.mark(P_BAR);
+}
+
+// a block barrier of the decoder: the work before it is `part`'s
+__device__ __forceinline__ void sync_dec(Probe& pr, int part) {
+  pr.mark(part);
+  __syncthreads();
+  pr.mark(DP_BAR);
 }
 
 }  // namespace tfm

@@ -33,7 +33,9 @@ The kernels live in ``csrc/fused_serve.cu``, whose header says what bounds
 them on Hopper and what their design does about that; the bf16 tiers of
 ``peer_context`` and ``fused_encode`` run on the tensor cores
 (``csrc/lstm_mma.cuh``), their W packed once a call by :func:`pack_weights`
-and their blocks chosen by :func:`peer_tc_rows` and :func:`encode_tc_rows`. Each wrapper runs its
+and their blocks chosen by :func:`peer_tc_rows` and :func:`encode_tc_rows`;
+so does the cell on bf16 tensors, W read as stored (nothing packed: the
+cell is launched once a step), its block from :func:`cell_tc_rows`. Each wrapper runs its
 plain version (:func:`fused_serve_reference`, :func:`peer_context_reference`,
 :func:`fused_encode_reference`, :func:`fused_decode_reference`, and
 ``models.cell.lstm_cell`` for the cell) on CPU tensors, and launches its
@@ -48,6 +50,7 @@ requires grad, on both devices (:func:`refuse_grad`).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -74,6 +77,8 @@ __all__ = [
     "fused_decode",
     "fused_decode_reference",
     "fused_lstm_cell",
+    "cell_tc_rows",
+    "cell_w_steps",
     "kernel_rows",
     "exact_f32_matmul",
     "refuse_grad",
@@ -254,7 +259,7 @@ def kernel_rows(hidden: int, layers: int, d: int, ctx_dim: int = 0) -> int:
 
 def _check_tensors(expect, device):
     for t, shape in expect:
-        if tuple(t.shape) != shape:
+        if t.shape != shape:  # torch.Size is a tuple
             raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
         if t.dtype not in COMPUTE_DTYPES:
             raise TypeError(f"the kernels take float32 or bfloat16 tensors, got {t.dtype}")
@@ -756,6 +761,41 @@ def fused_decode(
 fused_decode.launches = 0
 
 
+_CELL_STAGES = 4  # csrc/lstm_mma.cuh CELL_STAGES: chunks of the ring, of cell_ksteps k16 steps of W
+
+
+@functools.lru_cache(maxsize=64)
+def cell_tc_rows(d_in: int, hidden: int) -> int:
+    """Rows a block of the bf16 cell on the tensor cores
+    (``csrc/lstm_mma.cuh`` cell_step): 32 · (256 // hidden), so that its
+    (rows / 32) · (hidden / 16) warp tiles of 32 rows x 16 units fill as
+    many of its 16 warps as they can (all 16 where hidden divides 256).
+    Raises for shapes it does not take: hidden not a multiple of 16 or past
+    256, or z (the rows' [x padded to a k16 step, h] in bf16) and the ring
+    of W's k16 steps past a block's shared memory."""
+    if hidden % 16 or not 16 <= hidden <= 256:
+        raise ValueError(f"the bf16 cell kernel takes hidden % 16 == 0 up to 256 (warp tiles of 32 rows x 16 "
+                         f"units), got hidden={hidden}")
+    rows = 32 * (256 // hidden)
+    ring_rows = _CELL_STAGES * (2 if hidden <= 128 else 1) * 16
+    smem = 2 * rows * (-(-d_in // 16) * 16 + hidden + 8) + 2 * ring_rows * (4 * hidden + 8)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"D_in={d_in}, hidden={hidden}: the bf16 cell's block of {rows} rows needs {smem} bytes of "
+                         f"shared memory, more than {_SMEM_LIMIT}")
+    return rows
+
+
+def cell_w_steps(d_in: int, hidden: int) -> list:
+    """The bf16 cell's ring over W as stored, (D_in + H, 4H), two k16 steps
+    a chunk (one past H = 128): per k16 step, (first row of W, rows of W it holds, z's first
+    column). x's steps come first, its last one's rows past D_in zeros in
+    the stage (as x's columns past D_in are zeros in z, which holds x padded
+    to a whole k16 step, then h); then h's steps, W's rows D_in + 16·i."""
+    kx = -(-d_in // 16) * 16
+    return ([(16 * s, min(16, d_in - 16 * s), 16 * s) for s in range(kx // 16)]
+            + [(d_in + 16 * s, 16, kx + 16 * s) for s in range(hidden // 16)])
+
+
 def fused_lstm_cell(params: LSTMParams, x: torch.Tensor, state):
     """Drop-in for ``models.cell.lstm_cell`` (the JAX signature: ``(params,
     x, (h, c)) → (h, c)``): one LSTM step, in one kernel launch on CUDA
@@ -763,7 +803,9 @@ def fused_lstm_cell(params: LSTMParams, x: torch.Tensor, state):
     f32 or, on a bf16 model, all bf16: then the gates and the new c are f32
     sums of exact products, and h and c are written in bf16, as the TPU
     kernel writes them in the inputs' dtypes (so the c carry is rounded,
-    unlike the serve kernel's). No backward, as the TPU kernel has none: an
+    unlike the serve kernel's). The bf16 kernel runs on the tensor cores,
+    its block from :func:`cell_tc_rows`, W read as stored
+    (:func:`cell_w_steps`). No backward, as the TPU kernel has none: an
     input that requires grad raises on both devices."""
     h, c = state
     if x.dim() != 2 or h.dim() != 2 or min(*x.shape, *h.shape) < 1:
@@ -777,17 +819,21 @@ def fused_lstm_cell(params: LSTMParams, x: torch.Tensor, state):
                         f"{[str(t.dtype) for t in (x, h, c, params.w, params.b)]}")
     _check_tensors([(x, (batch, d_in)), (h, (batch, hidden)), (c, (batch, hidden)),
                     (params.w, (d_in + hidden, 4 * hidden)), (params.b, (4 * hidden,))], x.device)
-    # the kernel reads c, W and b as 16-byte vectors, x and h by element
+    bf16 = dtype == torch.bfloat16
+    # the kernels read c, W and b as 16-byte vectors (the bf16 one c and b as
+    # pairs), x and h by element (the bf16 one in 16-byte pieces where they
+    # are aligned)
     if not _on_card(x, [c, params.w, params.b], "fused_lstm_cell"):
         return lstm_cell(params, x, state)
-    rows = kernel_rows(hidden, 1, d_in)
-    h_out = torch.empty((batch, hidden), device=x.device, dtype=dtype)
-    c_out = torch.empty_like(h_out)
-    with torch.cuda.device(x.device):
+    rows = cell_tc_rows(d_in, hidden) if bf16 else kernel_rows(hidden, 1, d_in)
+    # h and c out in one allocation (the cell is launched once a step: its
+    # host work is most of a call at serving batches)
+    h_out, c_out = torch.empty((2, batch, hidden), device=x.device, dtype=dtype).unbind()
+    with _on_device(x.device):
         err = _library().lstm_cell_launch(
             x.data_ptr(), h.data_ptr(), c.data_ptr(), params.w.data_ptr(), params.b.data_ptr(),
             h_out.data_ptr(), c_out.data_ptr(), batch, d_in, hidden, rows,
-            int(dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+            int(bf16), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "fused_lstm_cell")
     count_launch(fused_lstm_cell, dtype)
@@ -808,6 +854,14 @@ def _on_card(x: torch.Tensor, tensors, name: str) -> bool:
         if t.data_ptr() % 16:
             raise ValueError("the kernel reads 16-byte vectors: tensors must be 16-byte aligned")
     return True
+
+
+def _on_device(device: torch.device):
+    """The device guard of a launch: none where ``device`` is already the
+    current one (no device switch to pay for), else torch.cuda.device."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _ptrs(ts):
@@ -841,6 +895,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for f in (lib.fused_serve_launch, lib.fused_encode_launch, lib.peer_context_launch, lib.fused_decode_f32,
               lib.lstm_cell_launch):
         f.restype = i32
+    lib.lstm_cell_smem_bytes.argtypes = [i32, i32]
+    lib.lstm_cell_smem_bytes.restype = i32
     lib.fused_serve_error_string.argtypes = [i32]
     lib.fused_serve_error_string.restype = ctypes.c_char_p
     lib.fused_serve_probe_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]

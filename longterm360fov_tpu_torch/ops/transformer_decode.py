@@ -55,11 +55,48 @@ from ..models import transformer
 from ..params import tree_leaves
 from . import _build
 from .fused_lstm import _no_tf32
+from .lstm_train import _n_sm
 from .transformer_encode import HIDDEN, MAX_LAYERS, check_card_tensors, check_tier, layer_pointers, refuse_grad
 
-__all__ = ["fused_ar_decode", "fused_ar_decode_shared", "fused_ar_decode_bf16", "MAX_D"]
+__all__ = ["fused_ar_decode", "fused_ar_decode_shared", "fused_ar_decode_bf16", "MAX_D", "decode_rows",
+           "decode_smem_bytes", "stream_chunks"]
 
-MAX_D = 4  # csrc/transformer_decode.cu MAX_D: coordinates a token
+MAX_D = 4  # csrc/transformer_decode_mma.cuh MAX_D: coordinates a token
+_LDX, _LDB = HIDDEN + 4, HIDDEN + 8  # the kernel's f32 and bf16 row strides
+
+
+def decode_rows(batch: int, n_sm: int) -> int:
+    """Rows a block of the bf16 tier's body (16 warps, one block an SM): 64
+    when the batch fills the card's ``n_sm`` SMs with such blocks, else 32,
+    so that a smaller batch spreads over twice the SMs (the two shapes'
+    times at both sides of the switch: PERF.md, row 9c)."""
+    return 64 if -(-batch // 64) >= n_sm else 32
+
+
+def decode_smem_bytes(rows: int) -> int:
+    """Dynamic shared memory of a block of the bf16 tier's body at ``rows``
+    rows (csrc/transformer_decode_mma.cuh Shape<R>::SMEM): x, q, k and v in
+    f32, the products' A rows in bf16, the weight stream's two stages of
+    128 k-rows in bf16, the fed-back token."""
+    if rows not in (64, 32):
+        raise ValueError(f"the bf16 decode body takes blocks of 64 or 32 rows, got {rows}")
+    return 4 * rows * _LDX * 4 + (rows * _LDB + 2 * HIDDEN * _LDB) * 2 + rows * MAX_D * 4
+
+
+def stream_chunks(peers: bool) -> list:
+    """The bf16 tier's weight stream over one layer-step, in the order its
+    products read it: (DecPtr leaf as (sub, leaf), first k-row, first
+    column) of each chunk of 128 k-rows x 128 columns. Self Wq, Wk, Wv, Wo;
+    cross Wq, Wo; peer Wq, Wo (``peers``); W1's four 128-column slabs; W2's
+    four 128-row slabs."""
+    blocks = [(("self_attn", m), 0, 0) for m in ("wq", "wk", "wv", "wo")]
+    blocks += [(("cross_attn", m), 0, 0) for m in ("wq", "wo")]
+    if peers:
+        blocks += [(("peer_attn", m), 0, 0) for m in ("wq", "wo")]
+    blocks += [(("mlp", "w1"), 0, n0) for n0 in range(0, 4 * HIDDEN, HIDDEN)]
+    blocks += [(("mlp", "w2"), k0, 0) for k0 in range(0, 4 * HIDDEN, HIDDEN)]
+    return blocks
+
 
 # the weights of a layer, for the shape checks
 _DEC_WEIGHTS = tuple((sub, leaf) for sub in ("ln1", "ln2", "ln3", "ln4") for leaf in ("scale", "bias")) + tuple(
@@ -196,18 +233,20 @@ def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, pee
     out = torch.empty((batch, t_out, d), device=dev, dtype=torch.float32)
     seg = kt if cfg.peer_pool == "mean" else t_out
     lib = _library()
-    with torch.cuda.device(dev):
-        err = (lib.transformer_decode_bf16 if bf16 else lib.transformer_decode_f32)(
-            y0.data_ptr(), peer_valid.data_ptr() if kt else None, None if gid is None else gid.data_ptr(),
+    args = [y0.data_ptr(), peer_valid.data_ptr() if kt else None, None if gid is None else gid.data_ptr(),
             None if peer_dv is None else peer_dv.data_ptr(), self_kv.data_ptr(), out.data_ptr(),
             ptrs, *[t.data_ptr() for t in glob], pos.data_ptr(),
-            batch, len(layers), t_in, t_out, d, kt, cfg.peer_window, seg,
-            torch.cuda.current_stream().cuda_stream,
-        )
+            batch, len(layers), t_in, t_out, d, kt, cfg.peer_window, seg]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if bf16:
+            err = lib.transformer_decode_bf16(*args, decode_rows(batch, _n_sm(dev)), stream)
+        else:
+            err = lib.transformer_decode_f32(*args, stream)
     if err:
         raise RuntimeError(
             f"transformer_decode kernel launch failed: "
-            f"{_library().transformer_decode_error_string(err).decode()} (cuda error {err})"
+            f"{lib.transformer_decode_error_string(err).decode()} (cuda error {err})"
         )
     (fused_ar_decode_bf16 if bf16 else fused_ar_decode_shared if grouped else fused_ar_decode).launches += 1
     return out
@@ -241,11 +280,20 @@ fused_ar_decode_bf16.launches = 0
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The kernel's library, built at first use and loaded once."""
-    lib = _build.load("transformer_decode")
+    return bind(_build.load("transformer_decode"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``'s C entry points typed for ctypes: a build of
+    ``csrc/transformer_decode.cu``, the kernels' own or a probe build."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for f in (lib.transformer_decode_f32, lib.transformer_decode_bf16):
-        f.argtypes = [vp] * 6 + [ctypes.POINTER(vp)] + [vp] * 6 + [i32] * 8 + [vp]
+    lib.transformer_decode_f32.argtypes = [vp] * 6 + [ctypes.POINTER(vp)] + [vp] * 6 + [i32] * 8 + [vp]
+    lib.transformer_decode_bf16.argtypes = [vp] * 6 + [ctypes.POINTER(vp)] + [vp] * 6 + [i32] * 9 + [vp]
+    for f in (lib.transformer_decode_f32, lib.transformer_decode_bf16, lib.transformer_decode_smem_bytes,
+              lib.transformer_decode_probe_read):
         f.restype = i32
+    lib.transformer_decode_smem_bytes.argtypes = [i32]
+    lib.transformer_decode_probe_read.argtypes = [vp]
     lib.transformer_decode_error_string.argtypes = [i32]
     lib.transformer_decode_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,136 @@
+"""The host side of the bf16 kernels on the tensor cores that carry one
+step or one rollout: the transformer decode's bf16 body
+(``csrc/transformer_decode_mma.cuh``: the rows-a-block chooser, its shared
+memory and its weight stream's order) and the bf16 LSTM cell
+(``csrc/lstm_mma.cuh`` cell_step: its block and its ring over W as stored),
+on the CPU. The kernels themselves are held against their plain versions on
+the card (``tests/test_torch_kernel_cuda.py``)."""
+
+import numpy as np
+import pytest
+import torch
+
+from longterm360fov_tpu_torch.models import transformer
+from longterm360fov_tpu_torch.models.cell import mm, round_to
+from longterm360fov_tpu_torch.models.seq2seq import Seq2SeqConfig
+from longterm360fov_tpu_torch.ops import fused_lstm
+from longterm360fov_tpu_torch.ops import transformer_decode as td
+
+SMEM = 232448  # dynamic shared memory a Hopper block may use
+
+
+@pytest.mark.parametrize("batch,rows", [(1, 32), (257, 32), (4096, 32), (8384, 32), (8385, 64), (8448, 64),
+                                        (16384, 64), (65536, 64)])
+def test_decode_rows_fills_the_sms(batch, rows):
+    """64-row blocks where they fill the 132 SMs of an H100 SXM
+    (ceil(B / 64) >= 132), else 32-row blocks: B = 4096 spreads over 128
+    SMs, not 64."""
+    assert td.decode_rows(batch, 132) == rows
+    blocks = -(-batch // rows)
+    assert blocks >= 132 or rows == 32
+
+
+@pytest.mark.parametrize("n_sm,batch,rows", [(114, 7232, 32), (114, 7233, 64), (8, 448, 32), (8, 449, 64)])
+def test_decode_rows_reads_the_cards_sm_count(n_sm, batch, rows):
+    """The switch follows the SM count the wrapper reads from the card."""
+    assert td.decode_rows(batch, n_sm) == rows
+
+
+@pytest.mark.parametrize("tier", ["none", "per_row", "grouped"])
+@pytest.mark.parametrize("layers", range(1, 9))
+def test_decode_block_fits_at_every_depth_and_tier(layers, tier):
+    """The chosen block's shared memory (x, q, k, v in f32; the A rows and
+    two stream stages in bf16; the fed-back token) fits a block at every
+    L <= 8 and every tier, at the smaller and the larger batch: the layout
+    holds one layer at a time and the peers' K/V stay in device memory."""
+    for batch in (4096, 16384):
+        assert td.decode_smem_bytes(td.decode_rows(batch, 132)) <= SMEM
+    assert (td.decode_smem_bytes(64), td.decode_smem_bytes(32)) == (223232, 146432)
+
+
+def test_decode_smem_refuses_other_blocks():
+    with pytest.raises(ValueError, match="64 or 32 rows"):
+        td.decode_smem_bytes(48)
+
+
+def _layer(peers):
+    cfg = Seq2SeqConfig(hidden=128, layers=1, h_in=4, h_out=4)
+    return transformer.init(torch.Generator().manual_seed(int(peers)), cfg, device="cpu")["dec"][0]
+
+
+@pytest.mark.parametrize("peers", [True, False])
+def test_stream_chunks_follow_the_layers_products(peers):
+    """The stream's chunks, taken in order and cut at each product's depth,
+    are the products' W slices in the order the layer runs them: self Wq,
+    Wk, Wv, Wo; cross Wq, Wo; peer Wq, Wo; W1's four 128-column slabs; W2.
+    16 chunks of 128 x 128 with peers, 14 without."""
+    chunks = td.stream_chunks(peers)
+    assert len(chunks) == (16 if peers else 14)
+    layer = _layer(peers)
+    mats = [layer["self_attn"][m] for m in ("wq", "wk", "wv", "wo")]
+    mats += [layer["cross_attn"][m] for m in ("wq", "wo")]
+    mats += [layer["peer_attn"][m] for m in ("wq", "wo")] if peers else []
+    mats += [layer["mlp"]["w1"][:, n0:n0 + 128] for n0 in range(0, 512, 128)]
+    mats += [layer["mlp"]["w2"]]
+    it = iter(chunks)
+    for want in mats:
+        pieces = []
+        for _ in range(want.shape[0] // 128):
+            (sub, leaf), k0, n0 = next(it)
+            w = layer[sub][leaf]
+            assert k0 % 128 == 0 and k0 + 128 <= w.shape[0] and n0 + 128 <= w.shape[1]
+            pieces.append(w[k0:k0 + 128, n0:n0 + 128])
+        assert torch.equal(torch.cat(pieces), want)
+    assert next(it, None) is None
+
+
+@pytest.mark.parametrize("hidden,rows", [(16, 512), (32, 256), (48, 160), (64, 128), (96, 64), (128, 64),
+                                         (160, 32), (192, 32), (256, 32)])
+def test_cell_tc_rows(hidden, rows):
+    """Warp tiles of 32 rows x 16 units, at most one for each of the 16
+    warps, as many as fit: all 16 where hidden divides 256 (rows x hidden =
+    8192), 12 at hidden 96 (the peer encoder's C = 96)."""
+    assert fused_lstm.cell_tc_rows(3, hidden) == rows
+    tiles = (rows // 32) * (hidden // 16)
+    assert tiles <= 16 < tiles + hidden // 16
+    assert tiles == 16 or 256 % hidden
+
+
+def test_cell_tc_rows_refuses_what_it_does_not_take():
+    for hidden in (8, 40, 100, 272, 512, 1024):
+        with pytest.raises(ValueError, match=f"hidden={hidden}"):
+            fused_lstm.cell_tc_rows(3, hidden)
+    with pytest.raises(ValueError, match="D_in=2000, hidden=128"):
+        fused_lstm.cell_tc_rows(2000, 128)
+    assert fused_lstm.cell_tc_rows(640, 128) == 64  # the widest x beside the ring at H = 128
+    with pytest.raises(ValueError, match="D_in=641, hidden=128"):
+        fused_lstm.cell_tc_rows(641, 128)
+
+
+@pytest.mark.parametrize("d_in,hidden", [(3, 128), (16, 32), (128, 128), (131, 64), (1, 256), (3, 96),
+                                         (5, 160)])
+def test_cell_ring_over_w_as_stored_is_the_gate_product(d_in, hidden):
+    """The ring's k16 steps over W as stored (cell_w_steps), the stage rows
+    past D_in zero, against z = [x padded to a k16 step | h] in bf16: the
+    product step by step equals [x, h] @ W with both operands rounded to
+    bf16 and f32 sums (in another order: 1e-5); every row of W is in
+    exactly one step."""
+    rng = np.random.default_rng(d_in + hidden)
+    bf = torch.bfloat16
+    rows = 37
+    w = torch.tensor(rng.normal(size=(d_in + hidden, 4 * hidden)).astype(np.float32) * 0.2)
+    x = torch.tensor(rng.normal(size=(rows, d_in)).astype(np.float32))
+    h = torch.tensor(rng.uniform(-1, 1, size=(rows, hidden)).astype(np.float32))
+    kx = -(-d_in // 16) * 16
+    z = torch.cat([round_to(x, bf), torch.zeros(rows, kx - d_in), round_to(h, bf)], dim=1)
+    steps = fused_lstm.cell_w_steps(d_in, hidden)
+    assert len(steps) == (kx + hidden) // 16
+    seen = torch.zeros(d_in + hidden, dtype=torch.int64)
+    acc = torch.zeros(rows, 4 * hidden)
+    for k0, valid, zc in steps:
+        stage = torch.zeros(16, 4 * hidden)
+        stage[:valid] = round_to(w[k0:k0 + valid], bf)
+        seen[k0:k0 + valid] += 1
+        acc += z[:, zc:zc + 16] @ stage
+    assert torch.equal(seen, torch.ones_like(seen))
+    torch.testing.assert_close(acc, mm(torch.cat([x, h], dim=1), w, bf), rtol=1e-5, atol=1e-5)

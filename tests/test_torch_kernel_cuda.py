@@ -7,12 +7,14 @@ without the repo's conftest, which sets jax up for the CPU suite:
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from longterm360fov_tpu_torch import oracle
-from longterm360fov_tpu_torch.models import seq2seq, transformer
+from longterm360fov_tpu_torch.models import cross_user, seq2seq, transformer
 from longterm360fov_tpu_torch.models.cell import LSTMParams, lstm_cell
 from longterm360fov_tpu_torch.ops import (conv_resize, fused_lstm, lstm_align, lstm_ss, lstm_train,
                                           transformer_decode, transformer_encode)
@@ -1031,11 +1033,12 @@ def test_conv_resize_never_falls_back_on_card():
 # FMAs in another order and an online softmax.
 
 
-def _tfm_case(layers, h_in, h_out, batch, k=0, pool="none", window=0, seed=0):
+def _tfm_case(layers, h_in, h_out, batch, k=0, pool="none", window=0, seed=0, d=3):
     """transformer params with random LN scales and biases (init gives 1 and
-    0), pasts, the plain encoder memory and, with k peers, their tokens
-    under a mask with a row of no peer and a row of one."""
-    cfg = seq2seq.Seq2SeqConfig(hidden=128, layers=layers, h_in=h_in, h_out=h_out, peer_pool=pool,
+    0), pasts of ``d`` coordinates, the plain encoder memory and, with k
+    peers, their tokens under a mask with a row of no peer and a row of
+    one."""
+    cfg = seq2seq.Seq2SeqConfig(d=d, hidden=128, layers=layers, h_in=h_in, h_out=h_out, peer_pool=pool,
                                 peer_window=window)
     params = transformer.init(torch.Generator().manual_seed(seed), cfg, device="cpu")
     rng = np.random.default_rng(seed)
@@ -1043,11 +1046,11 @@ def _tfm_case(layers, h_in, h_out, batch, k=0, pool="none", window=0, seed=0):
                  for key, v in sub.items() if key in ("scale", "bias", "b1", "b2")]:
         leaf += torch.tensor(rng.normal(size=leaf.shape).astype(np.float32) * 0.1)
     params = params_from_numpy(walk(params, lambda _, t: t.numpy()), "cuda")
-    past = torch.tensor(rng.normal(size=(batch, h_in, 3)).astype(np.float32) * 0.3, device="cuda")
+    past = torch.tensor(rng.normal(size=(batch, h_in, d)).astype(np.float32) * 0.3, device="cuda")
     enc = transformer._encode(params, cfg, past)
     pm = pv = None
     if k:
-        of = torch.tensor(rng.normal(size=(batch, k, h_out, 3)).astype(np.float32) * 0.3, device="cuda")
+        of = torch.tensor(rng.normal(size=(batch, k, h_out, d)).astype(np.float32) * 0.3, device="cuda")
         mask = (torch.tensor(rng.random((batch, k))) < 0.7).float().cuda()
         mask[0] = 0.0
         mask[min(1, batch - 1), 1:] = 0.0
@@ -1188,6 +1191,150 @@ def test_transformer_bf16_shared_tier_matches_plain(pool, window):
     assert (out[masked] - alone[masked]).abs().max().item() <= BF16_TOL
 
 
+# The bf16 decode's body on the tensor cores (decode_rows_mma) at the edges
+# of its shapes: blocks of 32 rows (B < 8385) and of 64 (the chooser's other
+# shape), each with a ragged last block; L = 1 and 8, d = 1 and 4,
+# t_out = 1; every tier. Against the bf16 plain version at chip_smoke.py's
+# gate (at thousands of rows the largest gap is of the size of the tier's
+# own rounding error: 5e-2), the f32 one at JAX's 0.08, and the floor (the
+# kernel as far from f32 in the mean as the bf16 plain version, at least
+# half: it rounds where the tier rounds).
+BF16_ROWS_TOL = 5e-2
+
+
+@pytest.mark.parametrize("layers,h_in,h_out,batch,d,k,pool,window,grouped", [
+    (2, 30, 30, 8400, 3, 4, "none", 0, False),
+    (2, 30, 30, 8400, 3, 0, "none", 0, False),
+    (2, 30, 30, 8400, 3, 4, "none", 8, True),
+    (1, 6, 9, 100, 1, 4, "mean", 2, False),
+    (8, 4, 1, 33, 4, 3, "none", 0, False),
+    (2, 12, 12, 70, 4, 4, "none", 3, True),
+    (2, 30, 30, 257, 3, 4, "mean", 0, True),
+])
+def test_bf16_decode_tensor_core_shapes(layers, h_in, h_out, batch, d, k, pool, window, grouped):
+    bf16 = torch.bfloat16
+    if grouped:
+        cfg, params, enc, y0, gmem, gvalid, gid, dv = _shared_case(layers, h_in, h_out, batch, k, pool, window,
+                                                                   seed=layers + d, d=d)
+        peers = {"peer_gmem": gmem, "peer_gvalid": gvalid, "peer_gid": gid, "peer_dv": dv}
+        plain_peers = (gmem, gvalid)
+        plain_kw = {"peer_gid": gid.long(), "peer_dv": dv}
+    else:
+        cfg, params, _, enc, y0, pm, pv = _tfm_case(layers, h_in, h_out, batch, k, pool, window, seed=layers + d, d=d)
+        peers = {"peer_mem": pm, "peer_valid": pv} if k else {}
+        plain_peers, plain_kw = (pm, pv), {}
+    before = transformer_decode.fused_ar_decode_bf16.launches
+    out = transformer_decode.fused_ar_decode(params, cfg, enc, y0, compute_dtype=bf16, **peers)
+    torch.cuda.synchronize()
+    assert transformer_decode.fused_ar_decode_bf16.launches == before + 1
+    assert out.shape == (batch, h_out, d) and torch.isfinite(out).all()
+    ref = transformer._ar_decode(params, cfg, enc, *plain_peers, y0, compute_dtype=bf16, **plain_kw)
+    f32 = transformer._ar_decode(params, cfg, enc, *plain_peers, y0, **plain_kw)
+    assert (out - ref).abs().max().item() <= BF16_ROWS_TOL
+    assert (out - f32).abs().max().item() <= BF16_F32_TOL
+    assert _mean_gap(out, f32) >= 0.5 * _mean_gap(ref, f32), "the kernel does not round as the tier does"
+    assert torch.equal(out, transformer_decode.fused_ar_decode(params, cfg, enc, y0, compute_dtype=bf16, **peers))
+    if k:  # rows with every peer masked: the peerless bf16 rollout
+        masked = gid == 2 if grouped else torch.arange(batch, device="cuda") == 0
+        alone = transformer_decode.fused_ar_decode(params, cfg, enc, y0, compute_dtype=bf16)
+        assert (out[masked] - alone[masked]).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("hidden", [32, 96, 128, 160, 256])
+@pytest.mark.parametrize("d_in", [3, 128])
+@pytest.mark.parametrize("batch", [16384, 16383])
+def test_bf16_cell_tensor_core_shapes(batch, d_in, hidden):
+    """The bf16 cell on the tensor cores (W read as stored, blocks of
+    32 · (256 / hidden) rows; at 96 and 160 some warps have no tile) against
+    lstm_cell on the bf16 tensors at CELL_TOL and on their f32 widening, the
+    floor, and a bit-equal repeat."""
+    rng = np.random.default_rng(d_in + hidden)
+    (p,) = _stack(rng, d_in, 1, hidden=hidden)
+    p = LSTMParams(p.w.to(BF), p.b.to(BF))
+    x, h, c = (_cuda(rng, shape, scale).to(BF) for shape, scale in (((batch, d_in), 1.0), ((batch, hidden), 0.5),
+                                                                     ((batch, hidden), 0.5)))
+    before = _counts([fused_lstm.fused_lstm_cell])
+    got = fused_lstm.fused_lstm_cell(p, x, (h, c))
+    torch.cuda.synchronize()
+    assert _counts([fused_lstm.fused_lstm_cell]) == _one_more(before, BF)
+    assert all(g.shape == (batch, hidden) and g.dtype == BF for g in got)
+    _check(list(got), _plains(BF, lambda c_: list(lstm_cell(LSTMParams(p.w.to(c_), p.b.to(c_)), x.to(c_),
+                                                          (h.to(c_), c.to(c_))))), "cell", BF)
+    again = fused_lstm.fused_lstm_cell(p, x, (h, c))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_bf16_cell_refuses_what_the_tensor_cores_do_not_take():
+    rng = np.random.default_rng(0)
+    (p,) = _stack(rng, 3, 1, hidden=40)
+    p = LSTMParams(p.w.to(BF), p.b.to(BF))
+    x, h = _cuda(rng, (4, 3)).to(BF), _cuda(rng, (4, 40)).to(BF)
+    with pytest.raises(ValueError, match="hidden=40"):
+        fused_lstm.fused_lstm_cell(p, x, (h, h))
+    (q,) = _stack(rng, 2000, 1)
+    q = LSTMParams(q.w.to(BF), q.b.to(BF))
+    h = _cuda(rng, (4, 128)).to(BF)
+    with pytest.raises(ValueError, match="D_in=2000"):
+        fused_lstm.fused_lstm_cell(q, _cuda(rng, (4, 2000)).to(BF), (h, h))
+    (q,) = _stack(rng, 3, 1)
+    q = LSTMParams(q.w.to(BF), q.b.to(BF))
+    shifted = torch.empty(4 * 128 + 1, device="cuda", dtype=BF)[1:].view(4, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_lstm.fused_lstm_cell(q, _cuda(rng, (4, 3)).to(BF), (h, shifted))
+
+
+@pytest.mark.parametrize("d_in", [3, 8])
+def test_bf16_cell_takes_x_and_h_at_any_offset(d_in):
+    """x and h are read by element where they are not whole 16-byte pieces
+    (as the FMA design read them): x and h at an odd element offset give
+    the bits of aligned copies, at D_in = 8 (16-byte rows) too; c, W and b
+    stay checked."""
+    rng = np.random.default_rng(d_in)
+    (p,) = _stack(rng, d_in, 1)
+    p = LSTMParams(p.w.to(BF), p.b.to(BF))
+    batch = 4099
+    xs = _cuda(rng, (batch * d_in + 1,)).to(BF)
+    hs = _cuda(rng, (batch * 128 + 1,), 0.5).to(BF)
+    x, h, c = xs[1:].view(batch, d_in), hs[1:].view(batch, 128), _cuda(rng, (batch, 128), 0.5).to(BF)
+    assert x.data_ptr() % 16 and h.data_ptr() % 16
+    got = fused_lstm.fused_lstm_cell(p, x, (h, c))
+    want = fused_lstm.fused_lstm_cell(p, x.clone(), (h.clone(), c))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("path", ["apply", "teacher", "encode_peers", "encode_peers_aligned"])
+def test_bf16_cell_pallas_step_loops_at_a_ragged_batch(path):
+    """cell="pallas" on a bf16 model through the step loops that hand the
+    cell rows of a time-major (T, B, 3) tensor (B = 4099: x at an odd byte
+    offset every other step): seq2seq.apply decoding and teacher-forced,
+    cross_user.encode_peers (C = 96, a width with idle warps) and
+    encode_peers_aligned, against cell="xla" on the card within the CPU
+    parity test's 2e-2 (tests/test_torch_serve_bf16.py; a bf16 rollout may
+    part by a bf16 step and carry it), every cell step one bf16 launch."""
+    batch, k = 4099, 3
+    ctx = 96 if path == "encode_peers" else 128 if path == "encode_peers_aligned" else 0
+    cfg = seq2seq.Seq2SeqConfig(d=3, hidden=128, layers=2, h_in=30, h_out=30, ctx_dim=ctx, cell="pallas",
+                                param_dtype="bfloat16")
+    xla = dataclasses.replace(cfg, cell="xla")
+    params = (cross_user if ctx else seq2seq).init(torch.Generator().manual_seed(7), cfg, device="cuda")
+    rng = np.random.default_rng(7)
+    past = torch.tensor(rng.normal(size=(batch, 30, 3)).astype(np.float32) * 0.3, device="cuda")
+    fut = torch.tensor(rng.normal(size=(batch, 30, 3)).astype(np.float32) * 0.3, device="cuda")
+    others = torch.tensor(rng.normal(size=(batch, k, 30, 3)).astype(np.float32) * 0.3, device="cuda")
+    mask = (torch.tensor(rng.random((batch, k)), device="cuda") < 0.7).float()
+    run = {"apply": lambda c: seq2seq.apply(params, c, past),
+           "teacher": lambda c: seq2seq.apply(params, c, past, fut),
+           "encode_peers": lambda c: cross_user.encode_peers(params, c, others, mask),
+           "encode_peers_aligned": lambda c: cross_user.encode_peers_aligned(params, c, others, mask)}[path]
+    before = fused_lstm.fused_lstm_cell.launches_bf16
+    got = run(cfg)
+    torch.cuda.synchronize()
+    assert fused_lstm.fused_lstm_cell.launches_bf16 == before + (30 if ctx else 2 * 30 + 2 * 30)
+    plain = run(xla)
+    assert got.shape == plain.shape and torch.isfinite(got.float()).all()
+    assert (got.float() - plain.float()).abs().max().item() <= 2e-2
+
+
 def test_serve_fused_defaults_to_bf16_on_the_card():
     cfg, params, past, *_ = _tfm_case(2, 30, 30, 64)
     before = (transformer_encode.fused_encode_tokens_bf16.launches, transformer_decode.fused_ar_decode_bf16.launches,
@@ -1250,12 +1397,12 @@ def test_transformer_bf16_encode_rows_are_independent_and_repeat_bit_equal():
 # bounds, tests/test_transformer_encode.py), two runs bit-equal.
 
 
-def _shared_case(layers, h_in, h_out, batch, k, pool, window, seed=0):
+def _shared_case(layers, h_in, h_out, batch, k, pool, window, seed=0, d=3):
     """G = 3 peer groups of uneven size (1 row, 37 rows or fewer, the rest)
     under an unsorted gid, the last group with every peer masked; random δv."""
-    cfg, params, past, enc, y0, *_ = _tfm_case(layers, h_in, h_out, batch, 0, pool, window, seed)
+    cfg, params, past, enc, y0, *_ = _tfm_case(layers, h_in, h_out, batch, 0, pool, window, seed, d)
     rng = np.random.default_rng(seed)
-    gfut = torch.tensor(rng.normal(size=(3, k, h_out, 3)).astype(np.float32) * 0.3, device="cuda")
+    gfut = torch.tensor(rng.normal(size=(3, k, h_out, d)).astype(np.float32) * 0.3, device="cuda")
     gmask = torch.ones((3, k), device="cuda")
     gmask[1, 1:] = 0.0
     gmask[2] = 0.0
