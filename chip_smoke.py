@@ -15,9 +15,10 @@ one line each or more:
    forward and reverse (three-pass TF32); the same for every instance of
    the lockstep peer backward (``align_peer_bwd_kernel``: both products on
    ``mma.sync``, three-pass TF32 in f32, bf16 in bf16), the bf16 tiers of
-   the peer context, the encoder and the cell (``lstm_mma.cuh``:
-   ``mma.sync`` bf16) and both block shapes of the bf16 transformer decode
-   (``transformer_decode_mma.cuh``, 64 and 32 rows);
+   the peer context, the encoder, the serve kernel and the cell
+   (``lstm_mma.cuh``: ``mma.sync`` bf16) and both block shapes of both
+   tiers of the transformer decode (``transformer_decode_mma.cuh``, bf16;
+   ``transformer_decode_f32mma.cuh``, three-pass TF32; 64 and 32 rows);
 3. each kernel against its plain PyTorch version at full width (hidden 128),
    at batches that are not a multiple of the kernels' row tiles:
    ``fused_serve`` without and with a static context (C = 128),
@@ -44,7 +45,10 @@ one line each or more:
    window 0 and the preset's (2 at 30 frames), with and without δv, over
    G = 3 groups (1 row, 37, the rest) under an unsorted gid, one group all
    masked (equal to the peerless rollout), and without δv against the
-   per-row kernel on gathered copies; the three ``fused_encode_train``
+   per-row kernel on gathered copies; the f32 ``fused_ar_decode`` in blocks
+   of 64 rows too (B = 8451, a ragged last block; the checks above run
+   blocks of 32), every tier, with δv, each repeat bit-equal; the three
+   ``fused_encode_train``
    kernels (B = 4096 at T = 30, a ragged B, T = 13 and 64): forward and
    stash against plain, every gradient against autograd through
    ``_encode``, the reduction equal to the block-order sum, two runs
@@ -69,7 +73,9 @@ one line each or more:
    ``fused_serve`` at 30 + 30 steps without and with a static context
    (C = 128 and 64), ``fused_encode`` on the crossuser peer rows, the
    lockstep tier at 100 + 100 steps (K = 7 and 3), the cell at D_in = 3 and
-   128; then the time splits of the f32 encoder's probe builds (row 10 at
+   128, and the serve kernel in blocks of 16 rows too (its tiles of 16
+   rows, W resident at L = 1 and from L2 at L = 2, the lockstep tier at
+   K = 7); then the time splits of the f32 encoder's probe builds (row 10 at
    B = 16384, row 11's forward and reverse at 4096), each beside the FMA
    design's (``ENC_F32_SPLIT_BEFORE``);
 4. the ``seq2seq-tf-30`` serving main path: ``serving.make_serve_fn`` behind
@@ -167,9 +173,11 @@ one line each or more:
    beside its time before the tensor-core design (``BEFORE``), its
    bound's share, its readings and the time split of its probe build; the
    f32 encoder's beside its FMA design's (``BEFORE``) and its bound
-   beside the FMA units' bound of the same work; the bf16 decode (row 9c)
-   beside its FMA design's time and the K/V re-read floor (every step
-   reads its rows' self, cross and peer K/V again), and alone at B = 65,536;
+   beside the FMA units' bound of the same work; both decode tiers (row 9
+   on three-pass TF32, row 9c on bf16 ``mma.sync``) beside their FMA
+   designs' times, their bounds (f32: the products at a third of the dense
+   TF32 peak) and the K/V re-read floor (every step reads its rows' self,
+   cross and peer K/V again, in the tier's type), and alone at B = 65,536;
 14. the ``transformer-30`` training main path: ``train.train_loop`` at
    B = 4096 with K = 4 peers, noisy teacher forcing annealing 1 → 0.3, the
    encoder on the three ``fused_encode_train`` kernels (``train_impl``
@@ -189,10 +197,11 @@ one line each or more:
    rows over 8 videos of unequal counts with a masked peer, in bf16
    (GROUPED_BF16_TOL) and in f32 (ANGLE_TOL), and at B = 4096 and 16384
    (G = 8); grouped against per-row calls timed at both batches, profiles
-   of both at 4096; the f32 shared tier alone against plain at B = 4096,
-   and the per-row kernel alone at the TPU streamed tier's shape (window
-   0) and, in bf16, at the preset's window 8 beside its f32 twin and its
-   FMA design's time (B = 4096), and at B = 16384;
+   of both at 4096; the f32 shared tier alone against plain at B = 4096
+   beside its FMA design's time, and the per-row kernel alone at the TPU
+   streamed tier's shape (window 0) and, in bf16, at the preset's window 8
+   beside its f32 twin and both tiers' FMA designs' times (B = 4096), and
+   at B = 16384;
    ``transformer-30`` grouped at B = 16384;
 16. the ``transformer-10s`` training main path: ``train.train_loop`` at
    B = 1024 (plain encoder at T = 100, as in JAX), evaluation through the
@@ -204,7 +213,8 @@ one line each or more:
    ``stacked-ss-crossuser`` (``fused_encode`` and the static tier; 16384
    and 65,536) and ``stacked-ss-crossuser-10s`` (the lockstep tier; 16384
    and 65,536), each against the f32 call on the same weights in turns
-   (traj/s, and the deviation in great-circle degrees); ``cell="pallas"``
+   (traj/s, and the deviation in great-circle degrees), a profile of the
+   10 s preset's bf16 call at 65,536; ``cell="pallas"``
    on a bf16 ``seq2seq-tf-30`` at 16384 (60 cell launches a call, against
    ``cell="xla"`` and f32); then ``train --bf16`` (``model_param_dtype=
    "bfloat16"``) on ``seq2seq-tf-30``, ``stacked-ss-crossuser``,
@@ -212,8 +222,10 @@ one line each or more:
    at B = 4096 (:func:`drive_bf16_params`: the LSTM cells on the f32
    kernels with f32 gradients and moments, the transformer on plain bf16
    autograd); then each bf16 serving tier alone against its f32 twin, its
-   plain version and cuDNN's or cuBLAS's bf16 call; the peer context (at
-   B = 4096 and 65,536) and the encoder beside their FMA design's times
+   plain version and cuDNN's or cuBLAS's bf16 call; the serve kernel (row
+   1b: no context, static context, the lockstep serve kernel), the peer
+   context (at B = 4096 and 65,536) and the encoder beside their FMA
+   design's times
    (``BEFORE``), their bounds' share and their bounds on the FMA units;
    the bf16 cell (row 2b, on the tensor cores) beside its FMA design's time,
    with its device time and ``torch.lstm_cell``'s (``torch.profiler``) and
@@ -234,6 +246,7 @@ and last the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
+import contextlib
 import ctypes
 import functools
 import json
@@ -331,7 +344,11 @@ HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
 # peer context (row 1b, B = 4096 and 65,536) and encoder (row 4b) on the FMA
 # units; the bf16 cell (row 2b, B = 16384, D_in = 3 and 128) and the bf16
 # transformer decode (row 9c: transformer-30 at B = 16384, transformer-10s
-# per row at 4096) on the FMA units
+# per row at 4096) on the FMA units; the f32 transformer decode (row 9:
+# transformer-30 at B = 16384 and 65,536, transformer-10s per row at 4096 at
+# its window 8 and at window 0, the shared tier at 4096) and the bf16 serve
+# kernel (row 1b: no context at B = 262,144, static context and the
+# lockstep serve kernel at 65,536) on the FMA units
 BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_decode_dw": 3.920,
           "ss_decode_dw_bf16": 3.777, "aligned_dec_dw": 20.739, "aligned_dec_dw_bf16": 20.681,
           "aligned_peer_dw": 20.808, "aligned_peer_dw_bf16": 21.833, "fused_encode_tokens_bf16": 19.151,
@@ -340,7 +357,11 @@ BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_dec
           "ss_decode_dproj": 0.073, "ss_decode_dproj_bf16": 0.049, "peer_context_bf16": 19.443,
           "peer_context_bf16 B=65536": 303.645, "fused_encode_bf16": 11.112, "fused_lstm_cell_bf16": 0.137,
           "fused_lstm_cell_bf16 D_in=128": 0.219, "fused_ar_decode_bf16": 74.404,
-          "fused_ar_decode_bf16 transformer-10s": 172.655}
+          "fused_ar_decode_bf16 transformer-10s": 172.655, "fused_ar_decode": 88.653,
+          "fused_ar_decode B=65536": 339.969, "fused_ar_decode transformer-10s": 137.884,
+          "fused_ar_decode transformer-10s window 0": 279.593,
+          "fused_ar_decode_shared": 129.154, "fused_serve_bf16": 92.864, "fused_serve_ctx_bf16": 72.126,
+          "fused_serve_peers_bf16": 245.214}
 DW_NAMES = [n for n in BEFORE if n.rsplit("_bf16", 1)[0].endswith("_dw")]
 # the cell kernel against lstm_cell: one step, exact f32 FMAs in another order
 # (tests/test_fused_lstm.py's bound for the TPU cell)
@@ -722,6 +743,18 @@ def check_serve(dev, batch, layers, ctx_dim, seed, t=30, cd=F32):
     return check_outputs("fused_serve_ctx" if ctx_dim else "fused_serve", [out],
                          plains(cd, lambda c: [fused_lstm.fused_serve_reference(*args, ctx, compute_dtype=c)]),
                          f"B={batch}, L={layers}, C={ctx_dim}", "serve", cd)
+
+
+@contextlib.contextmanager
+def serve_rows(rows):
+    """The bf16 serve kernel in blocks of ``rows`` rows inside the block
+    (16: tiles of 16 rows, MT = 1), its chooser's other shape."""
+    choose = fused_lstm.serve_tc_rows
+    fused_lstm.serve_tc_rows = lambda *a, **kw: choose(*a, rows=rows, **kw)
+    try:
+        yield
+    finally:
+        fused_lstm.serve_tc_rows = choose
 
 
 def check_encode(dev, batch, layers, seed, t=30, cd=F32):
@@ -1166,6 +1199,16 @@ def check_all_kernels(dev):
     print(f"fused_ar_decode shared tier vs plain, hidden 128, L=2, K=4, G=3 groups (1 row, 37, the rest; gid "
           f"unsorted; one group with every peer masked, equal to the peerless rollout; without δv also against "
           f"the per-row kernel on gathered copies): max_abs_err {json.dumps(errs)} (tolerance {TF_TOL})", flush=True)
+    # the f32 body's other block: 64 rows where the batch fills the SMs (the checks above run 32-row blocks)
+    errs = {f"K={k} pool={pool} window={w}": check_tf_decode(dev, 8451, k, pool, w, seed=20 + i)
+            for i, (k, pool, w) in enumerate(((0, "none", 0), (4, "none", 0), (4, "mean", 0), (4, "none", 2)))}
+    for pool, window, with_dv in (("none", 2, True), ("mean", 0, True), ("none", 0, False)):
+        errs[f"shared pool={pool} window={window} dv={with_dv}"] = check_tf_shared(dev, 8451, 30, pool, window,
+                                                                                with_dv, seed=25 + window)
+    rows = transformer_decode.decode_rows(8451, torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"fused_ar_decode f32 in blocks of {rows} rows "
+          f"(B=8451, a ragged last block; B=4099 and 2053 above in blocks of 32), 30+30 steps, every tier, repeats "
+          f"bit-equal: max_abs_err {json.dumps(errs)} (tolerance {TF_TOL})", flush=True)
     errs = {}
     for b, t, k, pool, w in ((16384, 30, 0, "none", 0), (4099, 30, 4, "none", 0), (4099, 30, 4, "mean", 0),
                              (4099, 30, 4, "none", 2), (2053, 100, 4, "none", 8)):
@@ -1193,6 +1236,11 @@ def check_all_kernels(dev):
             errs[f"{name} B={b} L={l} K={k}"] = r
     for b, d in ((16384, 3), (16383, 128)):
         errs[f"fused_lstm_cell B={b} D_in={d}"] = check_cell(dev, b, d, seed=b + d, cd=BF)
+    with serve_rows(16):  # the serve kernel's 16-row tiles (MT = 1), W resident and streamed
+        for b, l, c in ((4099, 1, 0), (4099, 2, 128)):
+            errs[f"fused_serve B={b} L={l} C={c} 16-row blocks"] = check_serve(dev, b, l, c, seed=l + 2, cd=BF)
+        errs["fused_serve_peers B=4099 L=2 K=7 16-row blocks"] = check_peer_serve(
+            dev, 4099, 2, 7, seed=11, cd=BF)["fused_serve_peers"]
     kinds = ("serve", "encode", "ctx", "cell")
     print(f"bf16 tiers of fused_serve (30+30 steps; static context C=128 and 64; the lockstep tier 100+100, C=128, "
           f"a row with every peer masked), fused_encode (T=30; the crossuser peer rows, 4·B) and fused_lstm_cell "
@@ -1354,6 +1402,10 @@ def time_serve_kernel(name, dev, params, cfg, batch, iters, ctx_dim, smi, keep=T
         record(name + ("_bf16" if cd == BF else ""), ms, flop, reads, [out], peak)
     print(f"{name} alone (B={batch}, L={m.layers}, C={ctx_dim}, {str(cd)[6:]}; ms, CUDA events, {smi}): "
           f"{json.dumps(ms)}; bound {b_ms:.3f} ms by {b_by}; vs plain {json.dumps(err)}", flush=True)
+    if cd == BF and keep:
+        report_redesign(name + "_bf16", smi, no_library="none (AR decode with feedback)",
+                        fma_bound=bound(flop, reads, [out])[0],
+                        extra=f"; B={batch}, L={m.layers}, C={ctx_dim}; its f32 twin {ms['f32_kernel']:.4f} ms")
 
 
 # --------------------------------------------------------------- phase 4b: the cell and decode kernels
@@ -2094,19 +2146,21 @@ def report_peer_bwd(builds):
 
 
 def report_lstm_mma(builds):
-    """The bf16 peer context and encoder (rows 1b, 4b; lstm_mma.cuh) and the
-    bf16 cell (row 2b, lstm_mma.cuh's cell_step): their registers, spills
-    and shared memory (ptxas; the dynamic shared memory of the serving
-    shapes' blocks, from ops.fused_lstm's choosers) and the count of HMMA
-    instructions in their SASS; fails if one has none: their products run
-    on mma.sync."""
+    """The bf16 peer context, encoder and serve kernel (rows 1b, 4b;
+    lstm_mma.cuh's encoder and server) and the bf16 cell (row 2b,
+    lstm_mma.cuh's cell_step): their registers, spills and shared memory
+    (ptxas; the dynamic shared memory of the serving shapes' blocks, from
+    ops.fused_lstm's choosers) and the count of HMMA instructions in their
+    SASS; fails if one has none: their products run on mma.sync."""
     sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
                            str(builds["fused_serve"].path)], capture_output=True, text=True, check=True).stdout
     hmma, fn = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            fn = next((k for k in ("peer_context_kernel", "fused_encode_kernel", "lstm_cell_kernel")
-                       if k in ln and "nv_bfloat16" in ln), None)
+            fn = next((k for k in ("peer_context_kernel", "fused_encode_kernel", "lstm_cell_kernel",
+                                   "fused_serve_kernel") if k in ln and "nv_bfloat16" in ln), None)
+            if fn == "fused_serve_kernel":
+                fn += "<true>" if "ILb1E" in ln else "<false>"
             if fn:
                 hmma[fn] = 0
         elif fn and "HMMA" in ln:
@@ -2122,13 +2176,25 @@ def report_lstm_mma(builds):
           f"{json.dumps(ptxas_resources('fused_serve', ('lstm_cell_kernel', 'nv_bfloat16')))}, "
           f"{json.dumps({d: lib.lstm_cell_smem_bytes(d, 128) for d in (3, 128)})} bytes of dynamic shared memory at "
           f"D_in = 3 and 128, 16 warps a block of {fused_lstm.cell_tc_rows(3, 128)} rows at H = 128", flush=True)
-    if len(hmma) != 3 or not all(hmma.values()):
+    serving = {"seq2seq-tf-30": fused_lstm.serve_tc_rows(128, 1, 3),
+               "stacked-ss-crossuser": fused_lstm.serve_tc_rows(128, 2, 3, 128),
+               "stacked-ss-crossuser-10s": fused_lstm.serve_tc_rows(128, 2, 3, 128, True),
+               "video-fusion": fused_lstm.serve_tc_rows(128, 2, 3, 64)}
+    for step in ("false", "true"):
+        name = f"fused_serve_kernel<{step}>"
+        sym = ("fused_serve_kernel", "ILb1E" if step == "true" else "ILb0E", "nv_bfloat16")
+        print(f"{name}<bf16>: {hmma.get(name, 0)} HMMA instructions in its SASS; "
+              f"{json.dumps(ptxas_resources('fused_serve', sym))}; blocks at the serving shapes (rows, warps, W "
+              f"resident, c in shared memory, bytes of dynamic shared memory): "
+              f"{json.dumps({k: [g.rp, g.warps, g.w_res, g.c_smem, g.smem] for k, g in serving.items()})}", flush=True)
+    if len(hmma) != 5 or not all(hmma.values()):
         raise AssertionError(f"a bf16 LSTM kernel has no HMMA instruction, its products off the tensor cores: {hmma}")
 
 
 def report_decode_mma(builds):
-    """The bf16 transformer decode (row 9c, transformer_decode_mma.cuh) in
-    blocks of 64 and of 32 rows: registers, spills and shared memory
+    """The transformer decode in both tiers (row 9, f32 on three-pass TF32:
+    transformer_decode_f32mma.cuh; row 9c, bf16: transformer_decode_mma.cuh)
+    in blocks of 64 and of 32 rows: registers, spills and shared memory
     (ptxas; the dynamic shared memory from the library) and the count of
     HMMA instructions in each instance's SASS; fails if one has none."""
     sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
@@ -2137,21 +2203,20 @@ def report_decode_mma(builds):
     for ln in sass.splitlines():
         if "Function :" in ln:
             sym = ln.split("Function :")[1].strip()
-            fn = sym if "ar_decode_kernel" in sym and "nv_bfloat16" in sym else None
+            fn = sym if "ar_decode_kernel" in sym else None
             if fn:
                 hmma[fn] = 0
         elif fn and "HMMA" in ln:
             hmma[fn] += 1
     lib = transformer_decode.bind(ctypes.CDLL(str(builds["transformer_decode"].path)))
     for sym, n in hmma.items():
-        rows = 32 if "Li32E" in sym else 64
-        print(f"ar_decode_kernel<bf16, {rows} rows>: {n} HMMA instructions in its SASS; "
+        rows, bf16 = 32 if "Li32E" in sym else 64, "nv_bfloat16" in sym
+        print(f"ar_decode_kernel<{'bf16' if bf16 else 'f32'}, {rows} rows>: {n} HMMA instructions in its SASS; "
               f"{json.dumps(ptxas_resources('transformer_decode', (sym,)))}, "
-              f"{lib.transformer_decode_smem_bytes(rows)} bytes of dynamic shared memory, 16 warps a block",
+              f"{lib.transformer_decode_smem_bytes(rows, int(bf16))} bytes of dynamic shared memory, 16 warps a block",
               flush=True)
-    if len(hmma) != 2 or not all(hmma.values()):
-        raise AssertionError(f"a bf16 decode instance has no HMMA instruction, its products off the tensor cores: "
-                             f"{hmma}")
+    if len(hmma) != 4 or not all(hmma.values()):
+        raise AssertionError(f"a decode instance has no HMMA instruction, its products off the tensor cores: {hmma}")
 
 
 def report_dw(smi):
@@ -2323,6 +2388,10 @@ def time_peer_serve(dev, params, cfg, batch, iters, smi, cd=F32):
                                                    + [t for p in ps for t in p], cd), [out],
            F32_FLOPS if cd == F32 else BF16_FLOPS)
     tier_flop = flop + stack_flop(batch * cfg.n_other_users, m.h_out, [m.d], m.ctx_dim)
+    if cd == BF:
+        report_redesign(name, smi, no_library="none (AR decode with feedback)",
+                        fma_bound=bound(flop, [x_n, ctx], [out])[0],
+                        extra=f"; the lockstep serve kernel, B={batch}, its f32 twin {ms['f32_kernel']:.4f} ms")
     print(f"lockstep fused_serve tier alone (B={batch}, L={m.layers}, K={cfg.n_other_users}, "
           f"{m.h_in}+{m.h_out} steps, {str(cd)[6:]}; ms, CUDA events, {smi}): whole tier {json.dumps(tier)} "
           f"({tier_flop / tier['kernel'] / 1e9:.1f} TFLOP/s); the serve kernel with the per-step context "
@@ -2919,10 +2988,12 @@ def check_tf_encode(dev, batch, t, layers, seed, repeat=False):
 def check_tf_decode(dev, batch, k, pool, window, seed, t=30):
     """fused_ar_decode against transformer._ar_decode on the same memory →
     max abs error; with peers, the row with no valid peer must equal the
-    peerless rollout."""
+    peerless rollout; a repeat must be bit-equal."""
     m, params, _, enc, y0, pm, pv = tf_case(dev, batch, t, t, 2, k, pool, window, seed)
     out = transformer_decode.fused_ar_decode(params, m, enc, y0, peer_mem=pm, peer_valid=pv)
     torch.cuda.synchronize()
+    if not torch.equal(out, transformer_decode.fused_ar_decode(params, m, enc, y0, peer_mem=pm, peer_valid=pv)):
+        raise AssertionError(f"fused_ar_decode at B={batch} differs on repeat (K={k}, pool={pool}, window={window})")
     ref = transformer._ar_decode(params, m, enc, pm, pv, y0)
     err = (out - ref).abs().max().item()
     if out.shape != (batch, t, 3) or not torch.isfinite(out).all() or not err <= TF_TOL:
@@ -2964,6 +3035,9 @@ def check_tf_shared(dev, batch, t, pool, window, with_dv, seed):
     out = transformer_decode.fused_ar_decode_shared(params, m, enc, y0, peer_gmem=gmem, peer_gvalid=gvalid,
                                                     peer_gid=gid, peer_dv=dv)
     torch.cuda.synchronize()
+    if not torch.equal(out, transformer_decode.fused_ar_decode_shared(params, m, enc, y0, peer_gmem=gmem,
+                                                                      peer_gvalid=gvalid, peer_gid=gid, peer_dv=dv)):
+        raise AssertionError(f"the shared tier at B={batch} differs on repeat")
     ref = transformer._ar_decode(params, m, enc, gmem, gvalid, y0, peer_gid=gid, peer_dv=dv)
     err = (out - ref).abs().max().item()
     alone = transformer_decode.fused_ar_decode(params, m, enc, y0)
@@ -3142,14 +3216,26 @@ def tf_work(m, batch, kt, attended):
     return enc, dec
 
 
-def reread_ms(m, batch, attended):
+def reread_ms(m, batch, attended, tier=torch.bfloat16):
     """The re-read floor of a decode that keeps the K/V in device memory
     (a row's K/V does not fit a block's shared memory): every step reads
     its self cache rows (t at step t), the T_in cross tokens and this run's
     ``attended`` peer tokens (summed over rows and steps) again, K and V in
-    bf16, every layer, over the memory rate → ms."""
+    the tier's type, every layer, over the memory rate → ms."""
     tokens = batch * (m.h_out * (m.h_out - 1) // 2 + m.h_in * m.h_out) + attended
-    return m.layers * tokens * 2 * m.hidden * 2 / HBM_BYTES * 1e3
+    return m.layers * tokens * 2 * m.hidden * torch.finfo(tier).bits // 8 / HBM_BYTES * 1e3
+
+
+def decode_work(m, batch, flop, kt, tier):
+    """The decode's work by type for bound(): in bf16 every FLOP at the bf16
+    tensor-core peak; in f32 the kernel's matrix products (16 or 14 H x H
+    a row-layer-step) as three-pass TF32, the rest (the attention, in_proj
+    and out_proj, and the wrapper's exact-f32 K/V projections) on the FMA
+    units."""
+    if tier == torch.bfloat16:
+        return flop
+    products = 2 * m.layers * batch * m.h_out * (16 if kt else 14) * m.hidden ** 2
+    return tf32_work(flop, products)
 
 
 def stored(tensors, tier):
@@ -3218,7 +3304,8 @@ def time_tf_kernels(dev, params, cfg, batch, smi, keep):
         enc_work = enc_flop if tier == BF else tf32_work(enc_flop, 2 * batch * m.h_in * m.layers * 12 * m.hidden ** 2)
         io = {f"fused_encode_tokens{sfx}": (enc_work, [past_n] + stored(
                   [params["in_proj"]] + tree_leaves(params["enc"]), tier), [enc]),
-              f"fused_ar_decode{sfx}": (dec_flop, [mem, y0, pm, pv] + weights, [out])}
+              f"fused_ar_decode{sfx}": (decode_work(m, batch, dec_flop, pm.shape[1], tier), [mem, y0, pm, pv]
+                                        + weights, [out])}
         for name, ms, err in ((f"fused_encode_tokens{sfx}", ms_e, err_e), (f"fused_ar_decode{sfx}", ms_d, err_d)):
             b_ms, b_by = bound(io[name][0], *io[name][1:], peak)
             if keep:
@@ -3233,10 +3320,12 @@ def time_tf_kernels(dev, params, cfg, batch, smi, keep):
                 enc_bf16 = {"ms": ms["kernel"], "library_ms": ms["library"], "bound_ms": b_ms, "bound_by": b_by}
             elif name == "fused_encode_tokens":
                 report_redesign(name, smi, {"ms": ms["kernel"], "library_ms": ms["library"]}, io[name])
-            elif name == "fused_ar_decode_bf16":
+            elif name.startswith("fused_ar_decode"):
                 report_redesign(name, smi, {"ms": ms["kernel"], "library_ms": None, "bound_ms": b_ms,
                                             "bound_by": b_by}, no_library="none (AR decode with feedback)",
-                                extra=f"; the K/V re-read floor {reread_ms(m, batch, int(pv.sum()) * m.h_out):.3f} ms")
+                                fma_bound=None if tier == BF else bound(dec_flop, *io[name][1:])[0],
+                                extra=f"; the K/V re-read floor "
+                                      f"{reread_ms(m, batch, int(pv.sum()) * m.h_out, tier):.3f} ms")
     report_encode_bf16(enc_bf16, enc_readings, params, m, past_n, smi)
 
 
@@ -3421,9 +3510,9 @@ def time_tf_step(cfg, state, train_d, path, smi, iters=(3, 6)):
 
 
 def tf32_work(flop, products):
-    """The f32 encoder's work by type: its matrix products on the tensor
-    cores as three-pass TF32, the rest (attention, in_proj) on the FMA
-    units → {peak: FLOP}, for bound()."""
+    """An f32 tier's work by type: its matrix products on the tensor cores
+    as three-pass TF32, the rest (attention, in_proj) on the FMA units →
+    {peak: FLOP}, for bound()."""
     return {TF32X3_FLOPS: products, F32_FLOPS: flop - products}
 
 
@@ -3623,12 +3712,16 @@ def time_shared_tier(dev, params, cfg, batch, n_groups, smi):
                                                                         else kt)
     attended = int((win[None] & gvalid[:, None]).sum(dim=(1, 2))[gid].sum())
     flop = tf_work(m, batch, kt, attended)[1] - 2 * m.layers * 2 * m.hidden ** 2 * (batch - n_groups) * kt
-    record("fused_ar_decode_shared", ms, flop, [enc, y0, gmem, gvalid, gid, dv] + tree_leaves(params), [out])
+    record("fused_ar_decode_shared", ms, decode_work(m, batch, flop, kt, F32),
+           [enc, y0, gmem, gvalid, gid, dv] + tree_leaves(params), [out])
     t = TIMES["fused_ar_decode_shared"]
     print(f"fused_ar_decode shared tier alone (B={batch}, G={n_groups}, L={m.layers}, {m.h_in}+{m.h_out} steps, "
           f"K={k}: {kt} peer tokens a group, window {m.peer_window}; ms, CUDA events, {smi}): {json.dumps(ms)}; "
           f"bound {t['bound_ms']:.3f} ms by {t['bound_by']} ({flop / ms['kernel'] / 1e9:.2f} TFLOP/s); max_abs_err "
           f"vs plain {err:.3e} (tolerance {TF_TOL}); library: none (AR decode with feedback)", flush=True)
+    report_redesign("fused_ar_decode_shared", smi, no_library="none (AR decode with feedback)",
+                    fma_bound=bound(flop, [enc, y0, gmem, gvalid, gid, dv] + tree_leaves(params), [out])[0],
+                    extra=f"; the cross and self K/V re-read floor {reread_ms(m, batch, 0, F32):.3f} ms")
 
 
 def time_decode_per_row(dev, params, cfg, batch, smi, window=0, tier=F32, twin=True):
@@ -3667,20 +3760,31 @@ def time_decode_per_row(dev, params, cfg, batch, smi, window=0, tier=F32, twin=T
     mask = transformer._peer_window_mask(m, pm.shape[1], tq=m.h_out, device=dev)
     attended = batch * (int(mask.sum()) if mask is not None else m.h_out * pm.shape[1])
     flop = tf_work(m, batch, pm.shape[1], attended)[1]
-    b_ms, b_by = bound(flop, [enc, y0, pm, pv] + stored(tree_leaves(params), tier), [out],
+    reads = [enc, y0, pm, pv] + stored(tree_leaves(params), tier)
+    b_ms, b_by = bound(decode_work(m, batch, flop, pm.shape[1], tier), reads, [out],
                        F32_FLOPS if tier == F32 else BF16_FLOPS)
     shape = ", the TPU streamed tier's shape" if not window and m.h_out == 100 else ""
     print(f"fused_ar_decode{sfx} per-row tier alone ({cfg.name}, B={batch}, {m.h_in}+{m.h_out} steps, "
           f"K={cfg.n_other_users}: {pm.shape[1]} peer tokens, window {window}{shape}; ms, CUDA events, {smi}): "
           f"{json.dumps(ms)}; bound {b_ms:.3f} ms by {b_by}; max_abs_err vs plain {err:.3e} (tolerance {tol}); "
           f"library: none (AR decode with feedback)", flush=True)
-    if tier == BF:
-        before = f"fused_ar_decode_bf16 {cfg.name}"
-        report_redesign("fused_ar_decode_bf16", smi, {"ms": ms["kernel"], "library_ms": None, "bound_ms": b_ms,
-                                                      "bound_by": b_by},
-                        before=before if before in BEFORE and batch == 4096 and window == m.peer_window else "-",
-                        no_library="none (AR decode with feedback)",
-                        extra=f"; B={batch}; the K/V re-read floor {reread_ms(m, batch, attended):.3f} ms")
+    # each tier's kernel beside its time before its design: transformer-10s per row at its window and B = 4096
+    # (the f32 one as the bf16 reading's twin), the f32 one also at transformer-30's B = 65,536
+    kernels = {tier: ms["kernel"]}
+    if "f32_kernel" in ms:
+        kernels[F32] = ms["f32_kernel"]
+    for cd, t_ms in kernels.items():
+        name = "fused_ar_decode" + ("_bf16" if cd == BF else "")
+        if window != cfg.model.peer_window:
+            before = f"{name} {cfg.name} window {window}"
+        else:
+            before = f"{name} {cfg.name}" if batch == 4096 else f"{name} B={batch}"
+        c_ms, c_by = (b_ms, b_by) if cd == tier else bound(decode_work(m, batch, flop, pm.shape[1], cd), [
+            enc, y0, pm, pv] + stored(tree_leaves(params), cd), [out])
+        report_redesign(name, smi, {"ms": t_ms, "library_ms": None, "bound_ms": c_ms, "bound_by": c_by},
+                        before=before if before in BEFORE else "-", no_library="none (AR decode with feedback)",
+                        extra=f"; {cfg.name} B={batch}, window {window}; the K/V re-read floor "
+                              f"{reread_ms(m, batch, attended, cd):.3f} ms")
 
 
 def time_encoder_t100(dev, params, cfg, smi):
@@ -4082,6 +4186,7 @@ def main():
                        serve_call(tfcfg, tparams, dev, 16384, tier), 2, smi)
     time_tf_kernels(dev, tparams, tfcfg, 16384, smi, keep=True)
     time_decode_per_row(dev, tparams, tfcfg, 65536, smi, tier=BF, twin=False)  # row 9c at B = 65,536
+    time_decode_per_row(dev, tparams, tfcfg, 65536, smi)  # row 9 at B = 65,536
     time_encode_f32(dev, tparams, tfcfg, 65536, smi, before="fused_encode_tokens B=65536")
     torch.cuda.empty_cache()
 
@@ -4152,6 +4257,8 @@ def main():
     cu_serve_bf16 = drive_bf16_serving(CU_SERVE_BF16, ccfg, cross_user, dev, cparams, ((16384, 5), (65536, 2)), smi)
     cu10_serve_bf16 = drive_bf16_serving(CU10_SERVE_BF16, c10cfg, cross_user, dev, c10params,
                                          ((16384, 1), (65536, 1)), smi)
+    profile_device(f"{CU10_SERVE_BF16}: bf16 serve call at B=65536",
+                   serve_call(c10cfg, c10params, dev, 65536, BF, cross_user), 2, smi)
     s2s_cell_bf16 = drive_cell_bf16(dev, params_np, smi)
     torch.cuda.empty_cache()
     lstm_kernels = ["lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw", "lstm_dw_pack"]

@@ -114,9 +114,10 @@
 // fragments as the writes into the bf16 A buffer: x_t and each layer's new
 // h are rounded as they are stored there, the f32 h of the peer rows is
 // staged apart for ctx_t, and c and the accumulators stay f32 in the
-// lanes. The serve kernel's bf16 instances keep lstm_layer_step: their
-// products still run on the FMA units, the tier changing what is rounded and
-// halving the weight bytes. The cell kernel's bf16 instance runs its one
+// lanes. The serve kernel's bf16 instances run the same pieces through both
+// phases (lstm_mma.cuh's server: the encoder, then the decoder with its
+// feedback y on the FMA units and, in the lockstep tier, ctx_t by cp.async
+// during the products), and the cell kernel's bf16 instance runs its one
 // step on mma.sync too (lstm_mma.cuh's cell_step).
 
 #include "compute_type.cuh"
@@ -136,23 +137,19 @@ struct Weights {
   const float* proj_b;  // (D,)
 };
 
-// acc[g][r][j] += sum_k z[k][r0 + r] * W[k][g * H + j0 + j] for k < K.
-// z is k-major (K, R) in shared memory, rounded to CT as it enters the
-// product; W (CT) rows are 4H long.
-template <typename CT>
+// acc[g][r][j] += sum_k z[k][r0 + r] * W[k][g * H + j0 + j] for k < K, in
+// exact f32. z is k-major (K, R) in shared memory; W rows are 4H long.
 __device__ __forceinline__ void accumulate(float (&acc)[4][TR][TJ],
                                            const float* z, int K,
-                                           const CT* __restrict__ W,
+                                           const float* __restrict__ W,
                                            int H, int R, int r0, int j0) {
   const int G = 4 * H;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
     const float4 a0 = *reinterpret_cast<const float4*>(z + k * R + r0);
     const float4 a1 = *reinterpret_cast<const float4*>(z + k * R + r0 + 4);
-    const float a[TR] = {cround<CT>(a0.x), cround<CT>(a0.y), cround<CT>(a0.z),
-                         cround<CT>(a0.w), cround<CT>(a1.x), cround<CT>(a1.y),
-                         cround<CT>(a1.z), cround<CT>(a1.w)};
-    const CT* wk = W + (size_t)k * G + j0;
+    const float a[TR] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float* wk = W + (size_t)k * G + j0;
     float w[4][TJ];
 #pragma unroll
     for (int g = 0; g < 4; ++g) ldw4(wk + g * H, w[g]);
@@ -169,13 +166,11 @@ __device__ __forceinline__ void accumulate(float (&acc)[4][TR][TJ],
 // One layer-step for the block's R rows:
 //   gates = [in, h] @ W + b;  c = f * c + i * g;  h = o * tanh(c).
 // in: (k_in, R) layer input; h: (H, R) this layer's hidden state, read and
-// then overwritten (f32, unrounded); c: this layer's cell state,
-// owner-private layout [TR * TJ][nthr]. W in the compute type CT, the bias
-// in BT (f32, or the cell's bf16).
-template <typename CT, typename BT>
+// then overwritten; c: this layer's cell state, owner-private layout
+// [TR * TJ][nthr]; every value f32.
 __device__ __forceinline__ void lstm_layer_step(
     const float* in, int k_in, float* h, float* c,
-    const CT* __restrict__ W, const BT* __restrict__ bias, int H, int R,
+    const float* __restrict__ W, const float* __restrict__ bias, int H, int R,
     int r0, int j0, int tid, int nthr) {
   float acc[4][TR][TJ];
 #pragma unroll
@@ -223,9 +218,8 @@ __device__ __forceinline__ void load_step(float* x,
 // The L-layer encoder over T steps of xs (B, T, D) from zero state, for the
 // block's R rows: h_s and c_s (L x H * R floats each) end holding the final
 // states, x_s (D, R) the last step's input.
-template <typename CT>
 __device__ __forceinline__ void encode(const float* __restrict__ xs,
-                                       const CT* const* w,
+                                       const float* const* w,
                                        const float* const* b, float* h_s,
                                        float* c_s, float* x_s, long long row0,
                                        int B, int T, int D, int H, int L,
@@ -250,12 +244,11 @@ __device__ __forceinline__ void encode(const float* __restrict__ xs,
 // (C = 0) or a static context ctx (B, C), written into the decoder's layer-0
 // buffer once. STEP_CTX = true: the lockstep-peer tier's per-step context
 // ctx (B, T_out, C), reloaded every decoder step. A template parameter, so
-// that the static tier's instance keeps its registers. The projection rounds
-// h_top to CT; y is written and fed back in f32.
-template <bool STEP_CTX, typename CT>
+// that the static tier's instance keeps its registers.
+template <bool STEP_CTX>
 __device__ __forceinline__ void decode(const float* __restrict__ ctx,
                                        float* __restrict__ out,
-                                       const Weights<CT>& wts, float* h_s,
+                                       const Weights<float>& wts, float* h_s,
                                        float* c_s, float* x_s, long long row0,
                                        int B, int T_out, int D, int C, int H,
                                        int L, int R, int r0, int j0, int tid,
@@ -289,7 +282,7 @@ __device__ __forceinline__ void decode(const float* __restrict__ ctx,
       const int r = i / D, d = i % D;
       float y = 0.0f;
       for (int k = 0; k < H; ++k)
-        y = fmaf(cround<CT>(h_top[k * R + r]), ldw1(wts.proj_w + k * D + d), y);
+        y = fmaf(h_top[k * R + r], ldw1(wts.proj_w + k * D + d), y);
       y += __ldg(wts.proj_b + d);
       x_s[d * R + r] = y;
       const long long row = row0 + r;
@@ -299,11 +292,10 @@ __device__ __forceinline__ void decode(const float* __restrict__ ctx,
   }
 }
 
-// src (B, H) row-major, stored in ST → dst (H, R) k-major f32 for the
-// block's rows; 0 past the batch end.
-template <typename ST>
+// src (B, H) row-major → dst (H, R) k-major for the block's rows; 0 past
+// the batch end.
 __device__ __forceinline__ void load_rows_kmajor(float* dst,
-                                                 const ST* __restrict__ src,
+                                                 const float* __restrict__ src,
                                                  long long row0, int B, int H,
                                                  int R, int tid, int nthr) {
   for (int i = tid; i < R * H; i += nthr) {
@@ -315,10 +307,8 @@ __device__ __forceinline__ void load_rows_kmajor(float* dst,
 
 // The cell state of the thread's TR rows x TJ units, src (B, H) → its
 // owner-private slots c[(r * TJ + j) * nthr + tid] (lstm_layer_step's
-// layout), and back, src and dst stored in ST; rows past the batch end are 0
-// and not written.
-template <typename ST>
-__device__ __forceinline__ void load_c(float* c, const ST* __restrict__ src,
+// layout), and back; rows past the batch end are 0 and not written.
+__device__ __forceinline__ void load_c(float* c, const float* __restrict__ src,
                                        long long row0, int B, int H, int r0,
                                        int j0, int tid, int nthr) {
 #pragma unroll
@@ -331,22 +321,16 @@ __device__ __forceinline__ void load_c(float* c, const ST* __restrict__ src,
   }
 }
 
-template <typename ST>
-__device__ __forceinline__ void store_c(ST* __restrict__ dst, const float* c,
+__device__ __forceinline__ void store_c(float* __restrict__ dst, const float* c,
                                         long long row0, int B, int H, int r0,
                                         int j0, int tid, int nthr) {
 #pragma unroll
   for (int r = 0; r < TR; ++r) {
     const long long row = row0 + r0 + r;
     if (row >= B) continue;
-    if constexpr (std::is_same<ST, float>::value) {
-      *reinterpret_cast<float4*>(dst + row * H + j0) =
-          make_float4(c[(r * TJ + 0) * nthr + tid], c[(r * TJ + 1) * nthr + tid],
-                      c[(r * TJ + 2) * nthr + tid], c[(r * TJ + 3) * nthr + tid]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) st1(dst + row * H + j0 + j, c[(r * TJ + j) * nthr + tid]);
-    }
+    *reinterpret_cast<float4*>(dst + row * H + j0) =
+        make_float4(c[(r * TJ + 0) * nthr + tid], c[(r * TJ + 1) * nthr + tid],
+                    c[(r * TJ + 2) * nthr + tid], c[(r * TJ + 3) * nthr + tid]);
   }
 }
 
@@ -354,55 +338,56 @@ __device__ __forceinline__ void store_c(ST* __restrict__ dst, const float* c,
 // zero state, then the decoder. h0, c0 (L, B, H) given: the decode kernel
 // (fused_decode), the decoder alone from those states, with past = y0 as
 // (B, 1, D). One instance for both, so that the decoder loop is compiled
-// once, with the serve kernel's registers.
+// once, with the serve kernel's registers. The bf16 tier is lstm_mma.cuh's
+// server (every layer's W of a phase packed in w_enc[0], w_dec[0]; the
+// block's shape in geo), which takes no given states.
 template <bool STEP_CTX, typename CT>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(std::is_same<CT, float>::value ? 256 : 512)
     fused_serve_kernel(const float* __restrict__ past,
                        const float* __restrict__ ctx, float* __restrict__ out,
                        const Weights<CT> wts, int B, int T_in, int T_out, int D,
                        int C, int H, int L, int R,
                        const float* __restrict__ h0,
-                       const float* __restrict__ c0) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int j0 = (tid % (H / TJ)) * TJ;
-  const int r0 = (tid / (H / TJ)) * TR;
-  const int HR = H * R;
-  float* h_s = smem;           // L x (H, R)
-  float* c_s = h_s + L * HR;   // L x (TR * TJ, nthr): the same H * R floats
-  float* x_s = c_s + L * HR;   // (D + C, R) layer-0 input: x_t, then [y, ctx]
-  const long long row0 = (long long)blockIdx.x * R;
-
-  if (h0 == nullptr) {
-    encode(past, wts.w_enc, wts.b_enc, h_s, c_s, x_s, row0, B, T_in, D, H, L,
-           R, r0, j0, tid, nthr);
+                       const float* __restrict__ c0, const lstm_mma::Geom geo) {
+  if constexpr (!std::is_same<CT, float>::value) {
+    const uint4* we = reinterpret_cast<const uint4*>(wts.w_enc[0]);
+    const uint4* wd = reinterpret_cast<const uint4*>(wts.w_dec[0]);
+    if (geo.mt == 2)
+      lstm_mma::server<2, STEP_CTX>(past, ctx, out, we, wd, wts.b_enc, wts.b_dec, wts.proj_w, wts.proj_b, B, T_in,
+                                    T_out, D, C, H, L, geo);
+    else
+      lstm_mma::server<1, STEP_CTX>(past, ctx, out, we, wd, wts.b_enc, wts.b_dec, wts.proj_w, wts.proj_b, B, T_in,
+                                    T_out, D, C, H, L, geo);
   } else {
-    for (int l = 0; l < L; ++l) {
-      load_rows_kmajor(h_s + l * HR, h0 + (size_t)l * B * H, row0, B, H, R,
-                       tid, nthr);
-      load_c(c_s + l * HR, c0 + (size_t)l * B * H, row0, B, H, r0, j0, tid,
-             nthr);
-    }
-    load_step(x_s, past, row0, B, T_in, T_in - 1, D, R, tid, nthr);
-    __syncthreads();
-  }
-  // the decoder starts from the final (h, c) of every layer, which stay
-  // where they are, and from the last observed position (x_s holds it)
-  decode<STEP_CTX, CT>(ctx, out, wts, h_s, c_s, x_s, row0, B, T_out, D, C, H, L,
-                   R, r0, j0, tid, nthr);
-}
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    const int tid = threadIdx.x, nthr = blockDim.x;
+    const int j0 = (tid % (H / TJ)) * TJ;
+    const int r0 = (tid / (H / TJ)) * TR;
+    const int HR = H * R;
+    float* h_s = smem;           // L x (H, R)
+    float* c_s = h_s + L * HR;   // L x (TR * TJ, nthr): the same H * R floats
+    float* x_s = c_s + L * HR;   // (D + C, R) layer-0 input: x_t, then [y, ctx]
+    const long long row0 = (long long)blockIdx.x * R;
 
-// Does the cell's tier of ST run the FMA body (lstm_layer_step): f32
-// always; bf16 only in a -DCELL_FMA build (the design before the tensor
-// cores, kept for scripts/torch_cell_bf16_probe.py's comparison in turns).
-template <typename ST>
-__host__ __device__ constexpr bool cell_fma() {
-#ifdef CELL_FMA
-  return true;
-#else
-  return std::is_same<ST, float>::value;
-#endif
+    if (h0 == nullptr) {
+      encode(past, wts.w_enc, wts.b_enc, h_s, c_s, x_s, row0, B, T_in, D, H, L,
+             R, r0, j0, tid, nthr);
+    } else {
+      for (int l = 0; l < L; ++l) {
+        load_rows_kmajor(h_s + l * HR, h0 + (size_t)l * B * H, row0, B, H, R,
+                         tid, nthr);
+        load_c(c_s + l * HR, c0 + (size_t)l * B * H, row0, B, H, r0, j0, tid,
+               nthr);
+      }
+      load_step(x_s, past, row0, B, T_in, T_in - 1, D, R, tid, nthr);
+      __syncthreads();
+    }
+    // the decoder starts from the final (h, c) of every layer, which stay
+    // where they are, and from the last observed position (x_s holds it)
+    decode<STEP_CTX>(ctx, out, wts, h_s, c_s, x_s, row0, B, T_out, D, C, H, L,
+                     R, r0, j0, tid, nthr);
+  }
 }
 
 // One LSTM step (fused_lstm_cell) for the block's R rows: x (B, Din),
@@ -410,14 +395,14 @@ __host__ __device__ constexpr bool cell_fma() {
 // ST values are exact in f32, so the gates and the new c are f32 sums,
 // rounded to ST only where h and c are written. The bf16 tier is
 // lstm_mma.cuh's cell_step (mma.sync, W read as stored, R = 32 · (256 / H)); the
-// FMA body, lstm_layer_step, follows.
+// f32 tier's body, lstm_layer_step, follows.
 template <typename ST>
-__global__ void __launch_bounds__(cell_fma<ST>() ? 256 : lstm_mma::CELL_THREADS)
+__global__ void __launch_bounds__(std::is_same<ST, float>::value ? 256 : lstm_mma::CELL_THREADS)
     lstm_cell_kernel(const ST* __restrict__ x, const ST* __restrict__ h,
                      const ST* __restrict__ c, const ST* __restrict__ w,
                      const ST* __restrict__ b, ST* __restrict__ h_out,
                      ST* __restrict__ c_out, int B, int Din, int H, int R) {
-  if constexpr (!cell_fma<ST>()) {
+  if constexpr (!std::is_same<ST, float>::value) {
     lstm_mma::cell_step(x, h, c, w, b, h_out, c_out, B, Din, H);
   } else {
     extern __shared__ float4 smem4[];
@@ -440,7 +425,7 @@ __global__ void __launch_bounds__(cell_fma<ST>() ? 256 : lstm_mma::CELL_THREADS)
     for (int i = tid; i < R * H; i += nthr) {
       const int r = i / H, k = i % H;
       const long long row = row0 + r;
-      if (row < B) st1(h_out + row * H + k, h_s[k * R + r]);
+      if (row < B) h_out[row * H + k] = h_s[k * R + r];
     }
     store_c(c_out, c_s, row0, B, H, r0, j0, tid, nthr);
   }
@@ -589,21 +574,36 @@ static int launch(Kernel kernel, int grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// The serve kernel of the tier (STEP_CTX: the lockstep tier's per-step
-// context) in the compute type CT.
-template <bool STEP_CTX, typename CT>
+// The f32 serve kernel of the tier (STEP_CTX: the lockstep tier's per-step
+// context), or the decode kernel where h0, c0 are given.
+template <bool STEP_CTX>
 static int launch_serve(const void* past, const void* ctx, void* out,
-                        const Weights<CT>& w, int batch, int t_in, int t_out,
+                        const Weights<float>& w, int batch, int t_in, int t_out,
                         int d, int ctx_dim, int hidden, int layers, int rows,
                         const void* h0, const void* c0, void* stream) {
   const size_t smem =
       ((size_t)2 * layers * hidden + d + ctx_dim) * rows * sizeof(float);
-  return launch(fused_serve_kernel<STEP_CTX, CT>, (batch + rows - 1) / rows,
+  return launch(fused_serve_kernel<STEP_CTX, float>, (batch + rows - 1) / rows,
                 (rows / TR) * (hidden / TJ), smem, stream,
                 static_cast<const float*>(past), static_cast<const float*>(ctx),
                 static_cast<float*>(out), w, batch, t_in, t_out, d, ctx_dim,
                 hidden, layers, rows, static_cast<const float*>(h0),
-                static_cast<const float*>(c0));
+                static_cast<const float*>(c0), lstm_mma::Geom{});
+}
+
+// The dynamic shared memory of a bf16 serve block (lstm_mma.cuh's server):
+// rp rows in tiles of 16·mt, `warps` warps, W resident (w_res) or streamed,
+// c in shared memory (c_glob null) or in c_glob; -1 for a shape it does
+// not take.
+static long long serve_mma_smem(int rp, int d, int ctx_dim, int hidden, int layers, int mt, int warps, int w_res,
+                                const void* c_glob, bool step_ctx) {
+  if ((mt != 1 && mt != 2) || rp < 16 * mt || rp % (16 * mt) || warps < 1 || warps > 16 || hidden < 32 ||
+      hidden % 32 || d < 1 || d > lstm_mma::SERVE_MAX_D || ctx_dim < 0 || ctx_dim % 16 || layers < 1 ||
+      layers > MAX_LAYERS)
+    return -1;
+  const long long s =
+      lstm_mma::serve_smem_bytes(rp, d, ctx_dim, hidden, layers, w_res, c_glob == nullptr, step_ctx);
+  return s > lstm_mma::SMEM_LIMIT ? -1 : s;
 }
 
 extern "C" {
@@ -615,31 +615,54 @@ extern "C" {
 // weight matrices (W, proj_w) are bf16 and the products run in the bf16
 // compute tier; biases, activations and outputs are f32 in both tiers.
 
-// (2 * layers * hidden + d + ctx_dim) * rows floats of dynamic shared
-// memory. ctx is null when ctx_dim == 0; the decoder's layer-0 W is then
-// (d + hidden, 4 * hidden), else (d + ctx_dim + hidden, 4 * hidden). ctx is
+// ctx is null when ctx_dim == 0; the decoder's layer-0 W is then (d +
+// hidden, 4 * hidden), else (d + ctx_dim + hidden, 4 * hidden). ctx is
 // (batch, ctx_dim), or, with step_ctx, (batch, t_out, ctx_dim): the
-// lockstep-peer tier's per-step context.
+// lockstep-peer tier's per-step context. f32: `rows` rows a block (a
+// multiple of 8), (2 * layers * hidden + d + ctx_dim) * rows floats of
+// dynamic shared memory. bf16: w_enc[0] and w_dec[0] every layer's W of the
+// phase packed in one array (ops/fused_lstm.py pack_weights), `rows` = rp
+// rows a block in tiles of 16·mt, `warps` warps, W resident (w_res) or
+// streamed, c in shared memory or in c_glob (grid x layers x rp x hidden
+// floats; lstm_mma.cuh's server); ctx_dim % 16 == 0, d <= 4.
 int fused_serve_launch(const void* past, const void* ctx, void* out,
                        const void* const* w_enc, const void* const* b_enc,
                        const void* const* w_dec, const void* const* b_dec,
                        const void* proj_w, const void* proj_b, int batch,
                        int t_in, int t_out, int d, int ctx_dim, int hidden,
-                       int layers, int rows, int step_ctx, int bf16,
-                       void* stream) {
-  if (bad_shape(batch, t_in, d, hidden, layers, rows) || t_out < 1 ||
-      ctx_dim < 0 || (ctx_dim > 0) != (ctx != nullptr) ||
+                       int layers, int rows, int step_ctx, int bf16, int mt,
+                       int warps, int w_res, void* c_glob, void* stream) {
+  if (batch < 1 || t_in < 1 || t_out < 1 || ctx_dim < 0 || (ctx_dim > 0) != (ctx != nullptr) ||
       (step_ctx && ctx_dim == 0))
     return (int)cudaErrorInvalidValue;
-#define SERVE(STEP, CT)                                                       \
-  launch_serve<STEP, CT>(past, ctx, out,                                      \
-                         weights<CT>(w_enc, b_enc, w_dec, b_dec, proj_w,      \
-                                     proj_b, layers),                         \
-                         batch, t_in, t_out, d, ctx_dim, hidden, layers, rows, \
-                         nullptr, nullptr, stream)
-  if (bf16) return step_ctx ? SERVE(true, __nv_bfloat16) : SERVE(false, __nv_bfloat16);
-  return step_ctx ? SERVE(true, float) : SERVE(false, float);
-#undef SERVE
+  if (bf16) {
+    const long long smem = serve_mma_smem(rows, d, ctx_dim, hidden, layers, mt, warps, w_res, c_glob, step_ctx);
+    if (smem < 0) return (int)cudaErrorInvalidValue;
+    Weights<__nv_bfloat16> wts = weights<__nv_bfloat16>(nullptr, b_enc, nullptr, b_dec, proj_w, proj_b, layers);
+    wts.w_enc[0] = static_cast<const __nv_bfloat16*>(w_enc[0]);
+    wts.w_dec[0] = static_cast<const __nv_bfloat16*>(w_dec[0]);
+    const lstm_mma::Geom geo{rows, mt, w_res, static_cast<float*>(c_glob)};
+#define SERVE_MMA(STEP)                                                                                      \
+  launch(fused_serve_kernel<STEP, __nv_bfloat16>, (batch + rows - 1) / rows, 32 * warps, (size_t)smem, stream, \
+         static_cast<const float*>(past), static_cast<const float*>(ctx), static_cast<float*>(out), wts, batch,  \
+         t_in, t_out, d, ctx_dim, hidden, layers, rows, static_cast<const float*>(nullptr),                    \
+         static_cast<const float*>(nullptr), geo)
+    return step_ctx ? SERVE_MMA(true) : SERVE_MMA(false);
+#undef SERVE_MMA
+  }
+  if (bad_shape(batch, t_in, d, hidden, layers, rows)) return (int)cudaErrorInvalidValue;
+  const Weights<float> wts = weights<float>(w_enc, b_enc, w_dec, b_dec, proj_w, proj_b, layers);
+  return step_ctx ? launch_serve<true>(past, ctx, out, wts, batch, t_in, t_out, d, ctx_dim, hidden, layers, rows,
+                                       nullptr, nullptr, stream)
+                  : launch_serve<false>(past, ctx, out, wts, batch, t_in, t_out, d, ctx_dim, hidden, layers, rows,
+                                        nullptr, nullptr, stream);
+}
+
+// The dynamic shared memory of a bf16 serve block at the given shape
+// (lstm_mma::serve_smem_bytes), bytes
+long long fused_serve_smem_bytes(int rows, int d, int ctx_dim, int hidden, int layers, int w_res, int c_smem,
+                                 int step_ctx) {
+  return lstm_mma::serve_smem_bytes(rows, d, ctx_dim, hidden, layers, w_res, c_smem, step_ctx);
 }
 
 // The peer context of the lockstep tier: pxs (batch·n_peers, t_len, d), pwt
@@ -719,7 +742,7 @@ int fused_decode_f32(const void* h0, const void* c0, const void* y0,
       (ctx_dim > 0) != (ctx != nullptr))
     return (int)cudaErrorInvalidValue;
   // y0 is the kernel's past of one step
-  return launch_serve<false, float>(
+  return launch_serve<false>(
       y0, ctx, out,
       weights<float>(nullptr, nullptr, w_dec, b_dec, proj_w, proj_b, layers),
       batch, 1, t_out, d, ctx_dim, hidden, layers, rows, h0, c0, stream);
@@ -742,7 +765,7 @@ int lstm_cell_launch(const void* x, const void* h, const void* c, const void* w,
          static_cast<const ST*>(c), static_cast<const ST*>(w),                 \
          static_cast<const ST*>(b), static_cast<ST*>(h_out),                   \
          static_cast<ST*>(c_out), batch, d_in, hidden, rows)
-  if (bf16 && !cell_fma<__nv_bfloat16>()) {
+  if (bf16) {
     // the tensor-core body: hidden % 16 == 0 up to 256, rows 32 · (256 / hidden)
     if (batch < 1 || d_in < 1 || !lstm_mma::cell_takes(hidden) || rows != lstm_mma::cell_rows(hidden) ||
         lstm_mma::cell_smem_bytes(d_in, hidden) > lstm_mma::SMEM_LIMIT)
@@ -753,7 +776,7 @@ int lstm_cell_launch(const void* x, const void* h, const void* c, const void* w,
     return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)2 * hidden + d_in) * rows * sizeof(float);
   const int threads = (rows / TR) * (hidden / TJ);
-  return bf16 ? CELL(__nv_bfloat16, threads, smem) : CELL(float, threads, smem);
+  return CELL(float, threads, smem);
 #undef CELL
 }
 

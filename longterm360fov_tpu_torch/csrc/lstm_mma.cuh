@@ -69,11 +69,12 @@
 // ticks it spends in each part of its work to g_lstm_probe (probe.cuh's
 // ClockProbe); fused_serve_probe_read copies the sums out and zeroes them.
 enum LstmPart {
-  LP_STAGE,     // the next step's x: its global loads and its stores into z
+  LP_STAGE,     // the next step's x (the serve body: or ctx_t): its global loads and its stores into z
   LP_PRODUCTS,  // the tiles' products
   LP_CELL,      // the cell update on the accumulators, c, h to the staging buffer
   LP_PUBLISH,   // the staging into z; peer_context: the context sum and its store
   LP_BARRIERS,  // block barriers
+  LP_FEEDBACK,  // the serve body: y = h_top · proj_w + proj_b, written out and into z; W's copies
   LP_PARTS
 };
 __device__ unsigned long long g_lstm_probe[LP_PARTS];
@@ -366,6 +367,286 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
     for (int i = tid; i < rp * H; i += nthr) {
       const int r = i / H, u = i % H;
       if (p0 + r < nrows) out[(p0 + r) * H + u] = __bfloat162float(ztop[r * ldz + u]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 tier's serve kernel (fused_serve_kernel<STEP_CTX, __nv_bfloat16>
+// in fused_serve.cu, replacing the Pallas _serve_kernel of
+// longterm360fov_tpu/ops/fused_lstm.py::fused_serve at compute_dtype=
+// bfloat16): the L-layer encoder over T_in steps from zero state, then T_out
+// decoder steps from the encoder's final (h, c) of every layer, the layer-0
+// input [y, ctx], and y = round(h_top) · proj_w + proj_b fed back; ctx
+// none, static (B, C), or (STEP_CTX) the lockstep tier's per-step ctx_t
+// (B, T_out, C).
+//
+// What bounds it on the card (stacked-ss-crossuser-10s at B = 65,536: L =
+// 2, H = 128, C = 128, 100 + 100 steps): the products, 26 M row-layer-steps
+// of 0.15-0.28 MFLOP, about 6.2 TFLOP, 10 ms at mma.sync's 600-650 TFLOP/s;
+// the cell's exact sigmoids and tanhs (the encoders' 55 % of a step); the
+// recurrence (two barriers a layer-step); and, where the packed W does not
+// fit beside the block's state, W's reads from L2 every layer-step.
+// What the design does about it: the encoders' pieces (encoder above) on
+// one block of rp rows, through both phases:
+//   * z, a bf16 row of [x or y (padded to a k16 step) | ctx (C) | h_0 ..
+//     h_L-1] a block row; layer 0's A is [x | h_0] in the encoder (two
+//     pieces: product's za and zb) and [y | ctx | h_0] in the decoder (one
+//     run); the rounding points are the writes into z: x_t, every layer's
+//     new h, the static ctx once, ctx_t every step, the fed-back y; the
+//     first y is x_T_in-1 as the encoder left it in z.
+//   * The warp tiles, product and cell of the encoders: 32 rows x 16 units
+//     of all four gates (16 rows x 32 units at MT = 1), c in the lanes'
+//     slots, which carry each layer's c from the encoder into the decoder.
+//   * W packed by pack_weights (ops/fused_lstm.py), the decoder's layer 0
+//     with its k-rows [y padded to a k16 step | ctx | h]. Where the larger
+//     phase's packed W fits beside the block's state (L = 1, C = 0: 144 KB
+//     each) it is resident, the decoder's copied over the encoder's between
+//     the phases; else every warp reads its fragments from L2 each
+//     layer-step (the encoders' streamed route). A block-shared ring of
+//     W's k-steps (16 KB each, by cp.async, one barrier a k-step) was
+//     slower than L2 at both streamed serving shapes (PERF.md, row 1b).
+//   * The feedback y (D·H MACs a row, D <= 4) on the FMA units, 8 threads
+//     a row, from the staging buffer's rounded h_top and proj_w staged in
+//     shared memory once, while the block publishes h_top into z: no
+//     barrier of its own.
+//   * The lockstep tier's ctx_t+1 comes by cp.async into an f32 staging
+//     buffer during step t's products and is rounded into z after layer 0
+//     has read ctx_t, each thread the pieces it copied.
+// Given states (h0, c0: fused_decode) are not taken: fused_decode widens
+// bf16 to f32 and runs the f32 instance.
+
+// z's row of the serve body, bf16: [x or y (kx_of(d)) | ctx (c) | h of every layer | 8]
+__host__ __device__ inline int serve_ldz(int d, int c, int h, int layers) { return kx_of(d) + c + layers * h + 8; }
+// uint4s of one phase's packed W: layer 0 (k_in0 + h k-rows), then layers - 1 of 2h
+__host__ __device__ inline long long phase_w_u4(int k_in0, int h, int layers) {
+  return ((long long)k_in0 + h + (long long)(layers - 1) * 2 * h) / 16 * (h / 4) * 32;
+}
+
+constexpr int SERVE_MAX_D = 4;  // coordinates a token the serve body takes
+
+// Shared memory of a serve block, in this order: W (when resident: the
+// larger phase's), c (when in shared memory), z, the staging of the new h
+// (bf16 rows of H + 8), proj_w transposed (d x h f32), and with STEP_CTX
+// ctx_t+1 (rp x c f32).
+__host__ __device__ inline long long serve_smem_bytes(int rp, int d, int c, int h, int layers, bool w_res,
+                                                      bool c_smem, bool step_ctx) {
+  const int kx = kx_of(d);
+  const long long w = phase_w_u4(kx, h, layers) > phase_w_u4(kx + c, h, layers) ? phase_w_u4(kx, h, layers)
+                                                                                 : phase_w_u4(kx + c, h, layers);
+  long long s = w_res ? 16 * w : 0;
+  s += c_smem ? 4LL * layers * rp * h : 0;
+  s += 2LL * rp * serve_ldz(d, c, h, layers) + 2LL * rp * (h + 8) + 4LL * d * h;
+  return s + (step_ctx ? 4LL * rp * c : 0);
+}
+
+template <int MT, bool STEP_CTX>
+__device__ __forceinline__ void server(const float* __restrict__ past, const float* __restrict__ ctx,
+                                       float* __restrict__ out, const uint4* __restrict__ w_enc,
+                                       const uint4* __restrict__ w_dec, const float* const* b_enc,
+                                       const float* const* b_dec, const bf16* __restrict__ proj_w,
+                                       const float* __restrict__ proj_b, int B, int T_in, int T_out, int D, int C,
+                                       int H, int L, const Geom& geo) {
+  using TL = Tile<MT>;
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int rp = geo.rp, kx = kx_of(D), kxc = kx + C, ldz = serve_ldz(D, C, H, L), lde = H + 8;
+  const int bands = H / TL::UNITS, tiles = rp / TL::ROWS * bands;
+  const int kstride = H / 4 * 32;  // uint4s of a k-step of packed W
+  const long long p0 = (long long)blockIdx.x * rp;
+  const int nrows = (int)min((long long)rp, (long long)B - p0);  // the block's rows in the batch
+  LstmProbe pr(g_lstm_probe);
+
+  char* sp = reinterpret_cast<char*>(smem4);
+  uint4* ws = reinterpret_cast<uint4*>(sp);
+  if (geo.w_res) sp += 16 * max(phase_w_u4(kx, H, L), phase_w_u4(kxc, H, L));
+  float4* cm;
+  if (geo.c_glob) {
+    cm = reinterpret_cast<float4*>(geo.c_glob + (size_t)blockIdx.x * L * rp * H);
+  } else {
+    cm = reinterpret_cast<float4*>(sp);
+    sp += (size_t)4 * L * rp * H;
+  }
+  bf16* z = reinterpret_cast<bf16*>(sp);
+  sp += (size_t)2 * rp * ldz;
+  bf16* est = reinterpret_cast<bf16*>(sp);  // the new h of a layer-step, rounded, rows of H + 8
+  sp += (size_t)2 * rp * lde;
+  float* pwt = reinterpret_cast<float*>(sp);  // proj_w transposed, (D, H) f32 (bf16 values)
+  sp += (size_t)4 * D * H;
+  float* cst = reinterpret_cast<float*>(sp);  // STEP_CTX: ctx_t+1 (rp, C)
+
+  // a phase's packed W (k_in0 + H k-rows at layer 0): copied into ws where
+  // resident, else read where it is
+  auto w_phase = [&](const uint4* wg, int k_in0) {
+    if (!geo.w_res) return wg;
+    const long long n = phase_w_u4(k_in0, H, L);
+    for (long long i = tid; i < n; i += nthr) ws[i] = wg[i];
+    return static_cast<const uint4*>(ws);
+  };
+  // One layer-step of every tile: [za | zb] · W_l + b_l on the tensor
+  // cores, the cell on the accumulators with c from the lanes' slots of
+  // layer l, the new h rounded into est.
+  auto layer_tiles = [&](const uint4* wl, const float* bl, const bf16* za, int ks_a, int l) {
+    const bf16* zb = z + kxc + l * H;
+    float4* cl0 = cm + (size_t)l * rp * H / 4 + lane;
+    for (int tau = warp; tau < tiles; tau += nwarps) {
+      const int r0 = tau / bands * TL::ROWS, u0 = tau % bands * TL::UNITS;
+      float acc[MT][TL::UT][4][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int ut = 0; ut < TL::UT; ++ut)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][ut][q][e] = 0.0f;
+      product<MT>(acc, za + r0 * ldz, ks_a, zb + r0 * ldz, H / 16, wl + tau % bands * TL::NP * 32 + lane, kstride,
+                  ldz, lane);
+      pr.mark(LP_PRODUCTS);
+      float4* cs = cl0 + (size_t)tau * MT * TL::UT * 32;
+      auto b_of = [&](int, int q, int unit) { return __ldg(reinterpret_cast<const float2*>(bl + q * H + unit)); };
+      auto c_get = [&](int mt, int ut) { return cs[(mt * TL::UT + ut) * 32]; };
+      auto c_set = [&](int mt, int ut, float4 c) { cs[(mt * TL::UT + ut) * 32] = c; };
+      cell<MT>(acc, r0, u0, lane, b_of, c_get, c_set, [&](int row, int unit, float h0, float h1) {
+        *reinterpret_cast<__nv_bfloat162*>(est + row * lde + unit) = __floats2bfloat162_rn(h0, h1);
+      });
+      pr.mark(LP_CELL);
+    }
+  };
+  // est (the rounded new h of layer l) into z
+  auto publish = [&](int l) {
+    bf16* zh = z + kxc + l * H;
+    for (int i = tid; i < rp * H / 8; i += nthr) {
+      const int r = i / (H / 8), u = (i % (H / 8)) * 8;
+      *reinterpret_cast<uint4*>(zh + r * ldz + u) = *reinterpret_cast<const uint4*>(est + r * lde + u);
+    }
+  };
+  // the layer-l slice of a phase's packed W (k_in0 + H k-rows at layer 0)
+  auto w_layer = [&](const uint4* w_all, int k_in0, int l) {
+    return w_all + (l ? (size_t)((k_in0 + H) / 16 + (l - 1) * (2 * H / 16)) * kstride : 0);
+  };
+  // x_t into z[r][0 .. D): element i of the block's rp x D, 0 past the rows
+  auto x_at = [&](int t, int i) {
+    const int r = i / D, d = i - r * D;
+    return r < nrows ? ldg_now(past + ((p0 + r) * T_in + t) * D + d) : 0.0f;
+  };
+  auto x_put = [&](int i, float v) {
+    const int r = i / D;
+    z[r * ldz + (i - r * D)] = __float2bfloat16_rn(v);
+  };
+  // ctx_t's pieces of 4 columns: piece i is row i / (C / 4), columns 4·(i % (C / 4))..
+  auto ctx_src = [&](int r, int t) {
+    return ctx + (STEP_CTX ? ((size_t)(p0 + r) * T_out + t) * C : (size_t)(p0 + r) * C);
+  };
+  auto ctx_put = [&](int i, float4 v) {
+    const int r = i / (C / 4), c = (i % (C / 4)) * 4;
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(z + r * ldz + kx + c);
+    dst[0] = __floats2bfloat162_rn(v.x, v.y);
+    dst[1] = __floats2bfloat162_rn(v.z, v.w);
+  };
+
+  for (int i = tid; i < L * rp * H / 4; i += nthr) cm[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int i = tid; i < rp * ldz / 8; i += nthr) reinterpret_cast<uint4*>(z)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < D * H; i += nthr) pwt[i] = __bfloat162float(proj_w[(i % H) * D + i / H]);
+  const uint4* wa = w_phase(w_enc, kx);
+  __syncthreads();  // z zeroed before x_0 and the first context land in it
+  for (int i = tid; i < rp * D; i += nthr) x_put(i, x_at(0, i));
+  // the static context, or ctx_0: z's ctx columns, which the encoder does not read
+  for (int i = tid; i < rp * C / 4; i += nthr) {
+    const int r = i / (C / 4);
+    if (r < nrows) ctx_put(i, __ldg(reinterpret_cast<const float4*>(ctx_src(r, 0) + (i % (C / 4)) * 4)));
+  }
+  __syncthreads();  // W, z and c in place
+  pr.mark(LP_FEEDBACK);
+
+  // -- the encoder over T_in steps; layer 0's A is [x | h_0]
+  for (int t = 0; t < T_in; ++t) {
+    // the thread's first element of x_t+1, loaded ahead of the products
+    const float xr = t + 1 < T_in && tid < rp * D ? x_at(t + 1, tid) : 0.0f;
+    pr.mark(LP_STAGE);
+    for (int l = 0; l < L; ++l) {
+      layer_tiles(w_layer(wa, kx, l), b_enc[l], l ? z + kxc + (l - 1) * H : z, (l ? H : kx) / 16, l);
+      __syncthreads();  // every tile of the layer-step read z; the staging is whole
+      pr.mark(LP_BARRIERS);
+      publish(l);
+      pr.mark(LP_PUBLISH);
+      if (l == 0 && t + 1 < T_in) {  // layer 0 has read x_t
+        if (tid < rp * D) x_put(tid, xr);
+        for (int i = tid + nthr; i < rp * D; i += nthr) x_put(i, x_at(t + 1, i));
+        pr.mark(LP_STAGE);
+      }
+      __syncthreads();  // z holds this layer's h (and x_t+1) for the next layer or step
+      pr.mark(LP_BARRIERS);
+    }
+  }
+
+  // -- the decoder over T_out steps from the encoder's (h, c); y_0 = x_T_in-1
+  // is in z; layer 0's A is [y | ctx | h_0]
+  wa = w_phase(w_dec, kxc);  // over the encoder's W: every warp is past its last product
+  __syncthreads();
+  pr.mark(LP_FEEDBACK);
+  for (int t = 0; t < T_out; ++t) {
+    if (STEP_CTX && t + 1 < T_out) {  // ctx_t+1 lands in cst during this step's products
+      for (int i = tid; i < rp * C / 4; i += nthr) {
+        const int r = i / (C / 4);
+        const bool ok = r < nrows;
+        cp_async16(cst + 4 * i, ok ? ctx_src(r, t + 1) + (i % (C / 4)) * 4 : ctx, ok);
+      }
+      cp_async_commit();
+      pr.mark(LP_STAGE);
+    }
+    for (int l = 0; l < L; ++l) {
+      layer_tiles(w_layer(wa, kxc, l), b_dec[l], l ? z + kxc + (l - 1) * H : z, (l ? H : kxc) / 16, l);
+      __syncthreads();
+      pr.mark(LP_BARRIERS);
+      publish(l);
+      pr.mark(LP_PUBLISH);
+      if (l == L - 1) {  // y = round(h_top) · proj_w + proj_b: out[b, t], and the next step's y in z
+        // 8 threads a row: thread part p of row r sums units 32·j + 4·p .. + 3 (j < H / 32), all D
+        // outputs at once, then the 8 parts; the part-0 thread writes y. Every row of the block, so
+        // that whole warps shuffle; rows past the batch are not written.
+        const int part = tid & 7;
+        for (int r = tid >> 3; r < rp; r += nthr >> 3) {
+          float s[SERVE_MAX_D] = {};
+          for (int u = 4 * part; u < H; u += 32) {
+            const uint2 hv = *reinterpret_cast<const uint2*>(est + r * lde + u);
+            const float2 h01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hv.x));
+            const float2 h23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hv.y));
+            const float* pw = pwt + u;
+#pragma unroll
+            for (int i = 0; i < SERVE_MAX_D; ++i) {
+              if (i < D) {
+                const float4 w = *reinterpret_cast<const float4*>(pw + i * H);
+                s[i] = fmaf(h01.x, w.x, s[i]);
+                s[i] = fmaf(h01.y, w.y, s[i]);
+                s[i] = fmaf(h23.x, w.z, s[i]);
+                s[i] = fmaf(h23.y, w.w, s[i]);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < SERVE_MAX_D; ++i) {
+            if (i < D) {
+              s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
+              s[i] += __shfl_xor_sync(0xffffffffu, s[i], 2);
+              s[i] += __shfl_xor_sync(0xffffffffu, s[i], 4);
+              if (part == 0 && r < nrows) {
+                const float y = s[i] + __ldg(proj_b + i);
+                out[((size_t)(p0 + r) * T_out + t) * D + i] = y;
+                z[r * ldz + i] = __float2bfloat16_rn(y);
+              }
+            }
+          }
+        }
+        pr.mark(LP_FEEDBACK);
+      }
+      if (STEP_CTX && l == 0 && t + 1 < T_out) {  // layer 0 has read ctx_t: ctx_t+1 into z
+        cp_async_wait<0>();
+        for (int i = tid; i < rp * C / 4; i += nthr) ctx_put(i, *reinterpret_cast<const float4*>(cst + 4 * i));
+        pr.mark(LP_STAGE);
+      }
+      __syncthreads();  // z holds this layer's h (the next step's y and ctx) for the next layer or step
+      pr.mark(LP_BARRIERS);
     }
   }
 }

@@ -1,14 +1,14 @@
 // The transformer decode's bf16 tier on the tensor cores: the rollout of
 // one block of R = 64 or 32 batch rows (transformer_decode.cu's
-// ar_decode_kernel<__nv_bfloat16, R>), with the arithmetic of the FMA
-// design's bf16 instance (Store<__nv_bfloat16>): the matrices, the cross and
-// peer K/V and the self cache stored in bf16; every product's activation
-// operand rounded to bf16 where it is written (the LN outputs, the attention
-// outputs less δv, the GELU output, the fed-back y), the products summed in
-// f32; q, the softmax, the LN statistics, the GELU, δv and the residual
-// stream in f32; the self cache holds k and v rounded, and the current
-// token's k and v are attended as rounded. in_proj (d <= 4) and out_proj
-// stay on the FMA units, as in the FMA design.
+// ar_decode_kernel<__nv_bfloat16, R>), with the tier's arithmetic
+// (Store<__nv_bfloat16>): the matrices, the cross and peer K/V and the
+// self cache stored in bf16; every product's activation operand rounded to
+// bf16 where it is written (the LN outputs, the attention outputs less δv,
+// the GELU output, the fed-back y), the products summed in f32; q, the
+// softmax, the LN statistics, the GELU, δv and the residual stream in f32;
+// the self cache holds k and v rounded, and the current token's k and v
+// are attended as rounded. in_proj (d <= 4) and out_proj stay on the FMA
+// units.
 //
 // What bounds it on the card (transformer-30 at B = 16384: L = 2, 30 + 30
 // steps, K = 4 peers, 120 peer tokens; NVIDIA H100 80GB HBM3):
@@ -160,15 +160,59 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-// One query row's 4-head attention by one warp: half-warp h = lane / 16
-// runs its own online softmax over its own tokens; lane li = lane % 16
-// holds q, the running output and the key/value dims 8·li..8·li+7 (head
-// li / 4: a head's 32 dims on 4 lanes, its logit their sum). m is the
-// running max of the head's logits, l the sum of exp(logit - m), acc the sum
-// of exp(logit - m) · v. A token that is not attended is not read and adds
-// nothing, which is what its -1e9 logit gives in the plain version (exp
-// underflows to exactly 0) whenever a token is attended.
+// A lane's 8 dims of a token's K or V row as the tier stores them: 16
+// bytes of bf16, or 32 bytes of f32 (two 16-byte loads).
+template <typename T>
+struct Kv8;
+
+template <>
+struct Kv8<bf16> {
+  uint4 u;
+  template <bool kReadOnly>
+  __device__ __forceinline__ static Kv8 load(const bf16* p) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+    return {kReadOnly ? __ldg(q) : *q};
+  }
+  __device__ __forceinline__ static Kv8 zero() { return {make_uint4(0, 0, 0, 0)}; }
+  __device__ __forceinline__ void widen(float (&v)[8]) const { widen8(u, v); }
+  __device__ __forceinline__ void store(bf16* p) const { *reinterpret_cast<uint4*>(p) = u; }
+};
+
+template <>
+struct Kv8<float> {
+  float4 a, b;
+  template <bool kReadOnly>
+  __device__ __forceinline__ static Kv8 load(const float* p) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    return kReadOnly ? Kv8{__ldg(q), __ldg(q + 1)} : Kv8{q[0], q[1]};
+  }
+  __device__ __forceinline__ static Kv8 zero() {
+    return {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  }
+  __device__ __forceinline__ void widen(float (&v)[8]) const {
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+  __device__ __forceinline__ void store(float* p) const {
+    reinterpret_cast<float4*>(p)[0] = a;
+    reinterpret_cast<float4*>(p)[1] = b;
+  }
+};
+
+// One query row's 4-head attention by one warp over K/V stored in T (bf16
+// or f32): half-warp h = lane / 16 runs its own online softmax over its own
+// tokens; lane li = lane % 16 holds q, the running output and the
+// key/value dims 8·li..8·li+7 (head li / 4: a head's 32 dims on 4 lanes,
+// its logit their sum). m is the running max of the head's logits, l the
+// sum of exp(logit - m), acc the sum of exp(logit - m) · v. A token that is
+// not attended is not read and adds nothing, which is what its -1e9 logit
+// gives in the plain version (exp underflows to exactly 0) whenever a
+// token is attended. G tokens a half-warp are scored before one rescale: 4
+// in bf16, 2 in f32, so that either has 8 loads of 16 bytes in flight a
+// lane.
+template <typename T>
 struct Attend {
+  static constexpr int G = 8 / (int)sizeof(T);
   float q[8], acc[8];
   float m, l;
 
@@ -180,16 +224,16 @@ struct Attend {
     l = 0.f;
   }
 
-  // the half-warp's N tokens k[u], v[u] (the lane's 8 dims in bf16), those
-  // with ok[u]: N logits, then one max and one rescale. Warp-uniform calls
-  // (the logit's shuffles); the 4 lanes of a head see the same ok.
+  // the half-warp's N tokens k[u], v[u] (the lane's 8 dims), those with
+  // ok[u]: N logits, then one max and one rescale. Warp-uniform calls (the
+  // logit's shuffles); the 4 lanes of a head see the same ok.
   template <int N>
-  __device__ __forceinline__ void add(const uint4 (&k)[N], const uint4 (&v)[N], const bool (&ok)[N]) {
+  __device__ __forceinline__ void add(const Kv8<T> (&k)[N], const Kv8<T> (&v)[N], const bool (&ok)[N]) {
     float s[N];
 #pragma unroll
     for (int u = 0; u < N; ++u) {
       float kf[8];
-      widen8(k[u], kf);
+      k[u].widen(kf);
       float d = q[0] * kf[0];
 #pragma unroll
       for (int i = 1; i < 8; ++i) d = fmaf(q[i], kf[i], d);
@@ -209,7 +253,7 @@ struct Attend {
     for (int u = 0; u < N; ++u) {
       const float p = expf(s[u] - mn);  // 0 for a token not attended
       float vf[8];
-      widen8(v[u], vf);
+      v[u].widen(vf);
       l += p;
 #pragma unroll
       for (int i = 0; i < 8; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
@@ -220,16 +264,16 @@ struct Attend {
   // The tokens of n_seg segments of `seg` tokens: in each, the `len` tokens
   // from offset lo (tokens j >= kt dropped), those whose valid[j] is non-zero
   // when valid is given, G a half-warp at a time, all their loads in flight
-  // together. K and V stored in bf16, row stride H. Kernel-read-only memory
-  // (kReadOnly) goes through the read-only path; the self cache, written by
-  // the kernel, does not.
+  // together. K and V row stride H. Kernel-read-only memory (kReadOnly) goes
+  // through the read-only path; the self cache, written by the kernel, does
+  // not.
   template <bool kReadOnly>
-  __device__ __forceinline__ void tokens(const bf16* K, const bf16* V, int n_seg, int seg, int lo, int len, int kt,
+  __device__ __forceinline__ void tokens(const T* K, const T* V, int n_seg, int seg, int lo, int len, int kt,
                                          const unsigned char* valid) {
     const int lane = threadIdx.x & 31, li = lane & 15, half = lane >> 4;
     const int n = n_seg * len;
     for (int v0 = 0; v0 < n; v0 += 2 * G) {
-      uint4 kr[G], vr[G];
+      Kv8<T> kr[G], vr[G];
       bool ok[G];
 #pragma unroll
       for (int u = 0; u < G; ++u) {
@@ -237,12 +281,10 @@ struct Attend {
         const int sg = n_seg == 1 ? 0 : vv / len;
         const int j = sg * seg + lo + (vv - sg * len);
         ok[u] = vv < n && j < kt && (valid == nullptr || valid[j] != 0);
-        kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+        kr[u] = vr[u] = Kv8<T>::zero();
         if (ok[u]) {
-          const uint4* kp = reinterpret_cast<const uint4*>(K + (size_t)j * H + 8 * li);
-          const uint4* vp = reinterpret_cast<const uint4*>(V + (size_t)j * H + 8 * li);
-          kr[u] = kReadOnly ? __ldg(kp) : *kp;
-          vr[u] = kReadOnly ? __ldg(vp) : *vp;
+          kr[u] = Kv8<T>::template load<kReadOnly>(K + (size_t)j * H + 8 * li);
+          vr[u] = Kv8<T>::template load<kReadOnly>(V + (size_t)j * H + 8 * li);
         }
       }
       add<G>(kr, vr, ok);
@@ -270,6 +312,31 @@ struct Attend {
     return true;
   }
 };
+
+// The peer tokens step t attends: token i sits at t_k = i % seg of its
+// segment, so per segment the tokens with |t_k - t| <= window (all of them
+// when window <= 0), as Attend::tokens walks them (n_seg, seg, lo, len).
+struct PeerRange {
+  int n_seg, seg, lo, len;
+  __device__ __forceinline__ PeerRange(const DecArgs& g, int t) : n_seg(1), seg(g.kt), lo(0), len(g.kt) {
+    if (g.window > 0) {
+      n_seg = (g.kt + g.seg - 1) / g.seg;
+      seg = g.seg;
+      lo = max(0, t - g.window);
+      len = max(0, min(g.seg, t + g.window + 1) - lo);
+    }
+  }
+};
+
+// the row's anchor correction δv at layer l subtracted from its 8 dims o
+// (the lane's)
+__device__ __forceinline__ void sub_dv(const DecArgs& g, int row, int l, int li, float (&o)[8]) {
+  const float* dvp = g.peer_dv + ((size_t)row * g.layers + l) * H + 8 * li;
+  const float4 d0 = __ldg(reinterpret_cast<const float4*>(dvp));
+  const float4 d1 = __ldg(reinterpret_cast<const float4*>(dvp + 4));
+  o[0] -= d0.x; o[1] -= d0.y; o[2] -= d0.z; o[3] -= d0.w;
+  o[4] -= d1.x; o[5] -= d1.y; o[6] -= d1.z; o[7] -= d1.w;
+}
 
 // The block's rollout in the bf16 tier: rows b0 = blockIdx.x · R .. of the
 // batch; smem holds Shape<R>::SMEM bytes.
@@ -344,14 +411,14 @@ __device__ __forceinline__ void decode_rows_mma(const DecParams& p, const DecArg
         // this step's k, v as the cache holds them (rounded to bf16)
         float f[8];
         load8(kb + r * LDX + 8 * li, f);
-        const uint4 k_now = pack8(f);
+        const Kv8<bf16> k_now = {pack8(f)};
         load8(vb + r * LDX + 8 * li, f);
-        const uint4 v_now = pack8(f);
-        *reinterpret_cast<uint4*>((half ? vc : kc) + (size_t)t * H + 8 * li) = half ? v_now : k_now;
-        Attend a;
+        const Kv8<bf16> v_now = {pack8(f)};
+        (half ? v_now : k_now).store((half ? vc : kc) + (size_t)t * H + 8 * li);
+        Attend<bf16> a;
         a.init(qb + r * LDX + 8 * li);
         a.tokens<false>(kc, vc, 1, t, 0, t, t, nullptr);
-        const uint4 kn[1] = {k_now}, vn[1] = {v_now};
+        const Kv8<bf16> kn[1] = {k_now}, vn[1] = {v_now};
         const bool on[1] = {half == 0};
         a.add<1>(kn, vn, on);
         float o[8];
@@ -368,7 +435,7 @@ __device__ __forceinline__ void decode_rows_mma(const DecParams& p, const DecArg
       sync_dec(pr, DP_EPI);
       for (int r = warp; r < nrows; r += S::WARPS) {
         const size_t row = (size_t)(b0 + r) * g.t_in * H;
-        Attend a;
+        Attend<bf16> a;
         a.init(qb + r * LDX + 8 * li);
         a.tokens<true>(as<bf16>(w[C_K]) + row, as<bf16>(w[C_V]) + row, 1, g.t_in, 0, g.t_in, g.t_in, nullptr);
         float o[8];
@@ -384,33 +451,16 @@ __device__ __forceinline__ void decode_rows_mma(const DecParams& p, const DecArg
         pr.mark(DP_EPI);
         product(hb, LDB, H, 0, store_to(qb));
         sync_dec(pr, DP_EPI);
-        // token i sits at t_k = i % seg of its segment: per segment, the
-        // tokens with |t_k - t| <= window (all of them when window <= 0)
-        int n_seg = 1, seg = kt, lo = 0, len = kt;
-        if (g.window > 0) {
-          n_seg = (kt + g.seg - 1) / g.seg;
-          seg = g.seg;
-          lo = max(0, t - g.window);
-          len = max(0, min(g.seg, t + g.window + 1) - lo);
-        }
+        const PeerRange pw(g, t);
         for (int r = warp; r < nrows; r += S::WARPS) {
           // the row's own peer memory, or its group's
           const size_t row = (size_t)(g.peer_gid ? __ldg(g.peer_gid + b0 + r) : b0 + r) * kt;
-          Attend a;
+          Attend<bf16> a;
           a.init(qb + r * LDX + 8 * li);
-          a.tokens<true>(as<bf16>(w[P_K]) + row * H, as<bf16>(w[P_V]) + row * H, n_seg, seg, lo, len, kt,
-                         g.peer_valid + row);
+          a.tokens<true>(as<bf16>(w[P_K]) + row * H, as<bf16>(w[P_V]) + row * H, pw.n_seg, pw.seg, pw.lo, pw.len,
+                         kt, g.peer_valid + row);
           float o[8];
-          if (a.out(o) && g.peer_dv != nullptr) {  // the anchor correction δv
-            float dv[8];
-            const float* dvp = g.peer_dv + ((size_t)(b0 + r) * layers + l) * H + 8 * li;
-            const float4 d0 = __ldg(reinterpret_cast<const float4*>(dvp));
-            const float4 d1 = __ldg(reinterpret_cast<const float4*>(dvp + 4));
-            dv[0] = d0.x; dv[1] = d0.y; dv[2] = d0.z; dv[3] = d0.w;
-            dv[4] = d1.x; dv[5] = d1.y; dv[6] = d1.z; dv[7] = d1.w;
-#pragma unroll
-            for (int i = 0; i < 8; ++i) o[i] -= dv[i];
-          }
+          if (a.out(o) && g.peer_dv != nullptr) sub_dv(g, b0 + r, l, li, o);  // the anchor correction δv
           put(r, o);
         }
         pr.mark(DP_PEER);

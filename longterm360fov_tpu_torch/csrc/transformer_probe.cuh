@@ -34,9 +34,8 @@ __device__ unsigned long long g_probe[PARTS];
 
 // the parts of the decoder's time split (transformer_decode.cu)
 enum DecPart {
-  DP_PROD,   // the products: their inner loops (the FMA design: the whole of gemm64,
-             // its slab waits, barriers and epilogue included)
-  DP_WAIT,   // the bf16 weight stream: waiting for a chunk
+  DP_PROD,   // the products: their inner loops (f32: with the split of the next chunk among the mma)
+  DP_WAIT,   // the weight stream: bf16, waiting for a chunk; f32, the chunk barriers
   DP_EPI,    // the layer norms and the products' epilogues
   DP_SELF,   // self attention over the cache, the cache writes included
   DP_CROSS,  // cross attention over the encoder's K/V

@@ -31,9 +31,10 @@ exact, as JAX's f32 dot widens them.
 
 The kernels live in ``csrc/fused_serve.cu``, whose header says what bounds
 them on Hopper and what their design does about that; the bf16 tiers of
-``peer_context`` and ``fused_encode`` run on the tensor cores
-(``csrc/lstm_mma.cuh``), their W packed once a call by :func:`pack_weights`
-and their blocks chosen by :func:`peer_tc_rows` and :func:`encode_tc_rows`;
+``peer_context``, ``fused_encode`` and ``fused_serve`` run on the tensor
+cores (``csrc/lstm_mma.cuh``), their W packed once a call by
+:func:`pack_weights` and their blocks chosen by :func:`peer_tc_rows`,
+:func:`encode_tc_rows` and :func:`serve_tc_rows`;
 so does the cell on bf16 tensors, W read as stored (nothing packed: the
 cell is launched once a step), its block from :func:`cell_tc_rows`. Each wrapper runs its
 plain version (:func:`fused_serve_reference`, :func:`peer_context_reference`,
@@ -71,6 +72,7 @@ __all__ = [
     "peer_rows",
     "peer_tc_rows",
     "encode_tc_rows",
+    "serve_tc_rows",
     "pack_weights",
     "fused_encode",
     "fused_encode_reference",
@@ -363,22 +365,31 @@ def _launch_serve(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context
                   compute_dtype):
     """Launch the serve kernel on checked CUDA tensors of the tier
     (:func:`_in_tier`): ``context`` None, (B, C), or with ``step_ctx``
-    (B, t_out, C)."""
+    (B, t_out, C). The bf16 tier packs each phase's W (:func:`pack_weights`)
+    and takes its block from :func:`serve_tc_rows`, the f32 tier from
+    :func:`kernel_rows`."""
     batch, t_in, d = past_n.shape
     hidden, layers = proj_w.shape[0], len(enc_params)
     ctx_dim = 0 if context is None else context.shape[-1]
     if ctx_dim % 4:
         raise ValueError(f"the kernel reads the context as 16-byte rows: ctx_dim % 4 == 0, got {ctx_dim}")
-    rows = kernel_rows(hidden, layers, d, ctx_dim)
+    w_enc, w_dec, c_glob = [p.w for p in enc_params], [p.w for p in dec_params], None
+    if compute_dtype == torch.bfloat16:
+        geo = serve_tc_rows(hidden, layers, d, ctx_dim, step_ctx)
+        w_enc, w_dec = [pack_weights(enc_params, d)], [pack_weights(dec_params, d)]
+        if not geo.c_smem:
+            c_glob = torch.empty(-(-batch // geo.rp) * layers * geo.rp * hidden, device=past_n.device)
+    else:
+        geo = TcGeom(0, kernel_rows(hidden, layers, d, ctx_dim), 0, 0, False, False, 0)
     out = torch.empty((batch, t_out, d), device=past_n.device, dtype=torch.float32)
     with torch.cuda.device(past_n.device):
         err = _library().fused_serve_launch(
             past_n.data_ptr(), None if context is None else context.data_ptr(), out.data_ptr(),
-            _ptrs([p.w for p in enc_params]), _ptrs([p.b for p in enc_params]),
-            _ptrs([p.w for p in dec_params]), _ptrs([p.b for p in dec_params]),
+            _ptrs(w_enc), _ptrs([p.b for p in enc_params]), _ptrs(w_dec), _ptrs([p.b for p in dec_params]),
             proj_w.data_ptr(), proj_b.data_ptr(),
-            batch, t_in, t_out, d, ctx_dim, hidden, layers, rows, int(step_ctx),
-            int(compute_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+            batch, t_in, t_out, d, ctx_dim, hidden, layers, geo.rp, int(step_ctx),
+            int(compute_dtype == torch.bfloat16), geo.mt, geo.warps, int(geo.w_res),
+            None if c_glob is None else c_glob.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "fused_serve")
     return out
@@ -412,12 +423,13 @@ def peer_rows(ctx_dim: int, n_peers: int, *, tile_rows: int = _TR) -> int:
 
 
 class TcGeom(NamedTuple):
-    """A block of the bf16 encoders on the tensor cores
+    """A block of the bf16 kernels on the tensor cores
     (``csrc/lstm_mma.cuh``): ``rows_v`` viewers (the peer context; the
-    encoder: 0), ``rp`` rows in warp tiles of 16·``mt`` rows x 32 / ``mt``
-    units, ``warps`` warps, the packed W resident in shared memory (``w_res``) or
-    streamed from L2, c in shared memory (``c_smem``) or in device memory,
-    and the block's dynamic shared memory in bytes."""
+    encoder and the serve kernel: 0), ``rp`` rows in warp tiles of
+    16·``mt`` rows x 32 / ``mt`` units, ``warps`` warps, the packed W
+    resident in shared memory (``w_res``) or streamed from L2, c in shared
+    memory (``c_smem``) or in device memory, and the block's dynamic shared
+    memory in bytes."""
     rows_v: int
     rp: int
     mt: int
@@ -428,6 +440,7 @@ class TcGeom(NamedTuple):
 
 
 _TC_MAX_WARPS = 16  # the bf16 encoders' __launch_bounds__(512): 128 registers a thread
+_SERVE_MAX_D = 4  # csrc/lstm_mma.cuh SERVE_MAX_D: coordinates a token of the bf16 serve kernel
 _TC_MAX_ROWS = 256  # rows a block
 
 
@@ -509,6 +522,63 @@ def peer_tc_rows(ctx_dim: int, n_peers: int, d: int) -> TcGeom:
     return geo
 
 
+def _serve_smem(rp: int, d: int, ctx_dim: int, hidden: int, layers: int, w_res: bool, c_smem: bool,
+                step_ctx: bool) -> int:
+    """``lstm_mma::serve_smem_bytes``: W (when resident: the larger
+    phase's packed W), c (when in shared memory), z (bf16 [x or y padded to
+    k16 | ctx | h of every layer] a row, 8 more), the staging of the new h
+    (bf16 rows of H + 8), proj_w in f32 and, in the lockstep tier, ctx_t+1
+    in f32."""
+    kx = -(-d // 16) * 16
+
+    def phase(k_in0):
+        return (k_in0 + hidden + (layers - 1) * 2 * hidden) * 8 * hidden
+
+    s = max(phase(kx), phase(kx + ctx_dim)) if w_res else 0
+    s += 4 * layers * rp * hidden if c_smem else 0
+    s += 2 * rp * (kx + ctx_dim + layers * hidden + 8) + 2 * rp * (hidden + 8) + 4 * d * hidden
+    return s + (4 * rp * ctx_dim if step_ctx else 0)
+
+
+def serve_tc_rows(hidden: int, layers: int, d: int, ctx_dim: int = 0, step_ctx: bool = False, *,
+                  rows: int = 0) -> TcGeom:
+    """The block of the bf16 serve kernel on the tensor cores
+    (``csrc/lstm_mma.cuh`` server): the most rows, a power of two from
+    :func:`_tc_top` down to 16 (``rows``: that many only), in the first
+    layout that fits at that many (``_TC_LAYOUTS``: W resident, then c in
+    shared memory), in warp tiles of 32 rows (16 at 16 rows: MT = 1). Rows
+    come first: a block of fewer rows has fewer warps, and one block an SM
+    (the encoders' chooser puts W's residency first). Raises for shapes the
+    kernel does not take: hidden not a multiple of 32, more than 8 layers,
+    a context not of whole k16 steps, more than 4 coordinates a token, or a
+    block of the fewest rows past a block's shared memory."""
+    if hidden < 32 or hidden % 32:
+        raise ValueError(f"the bf16 serve kernel needs hidden % 32 == 0, got {hidden}")
+    if not 1 <= layers <= MAX_LAYERS:
+        raise ValueError(f"the bf16 serve kernel takes 1..{MAX_LAYERS} layers, got {layers}")
+    if ctx_dim % 16:
+        raise ValueError(f"the bf16 serve kernel holds the context in whole k16 steps: ctx_dim % 16 == 0, "
+                         f"got {ctx_dim}")
+    if not 1 <= d <= _SERVE_MAX_D:
+        raise ValueError(f"the bf16 serve kernel takes 1..{_SERVE_MAX_D} coordinates a token, got d={d}")
+    rps = [rows] if rows else [rp for rp in (256, 128, 64, 32, 16) if rp <= _tc_top(hidden)]
+    if any(rp not in (256, 128, 64, 32, 16) for rp in rps):
+        raise ValueError(f"the bf16 serve kernel takes blocks of 16, 32, 64, 128 or 256 rows, got {rows}")
+    for rp in rps:
+        for w_res, c_smem in _TC_LAYOUTS:
+            smem = _serve_smem(rp, d, ctx_dim, hidden, layers, w_res, c_smem, step_ctx)
+            if smem <= _SMEM_LIMIT:
+                tiles = rp * hidden // 512
+                rounds = -(-tiles // _TC_MAX_WARPS)
+                return TcGeom(0, rp, 2 if rp % 32 == 0 else 1, -(-tiles // rounds), w_res, c_smem, smem)
+    least = _serve_smem(min(rps), d, ctx_dim, hidden, layers, False, False, step_ctx)
+    raise ValueError(
+        f"d={d}, ctx_dim={ctx_dim}, hidden={hidden}, layers={layers}: the bf16 serve kernel's block of "
+        f"{min(rps)} rows needs {least} bytes of shared memory with W and c in device memory, more than "
+        f"{_SMEM_LIMIT}"
+    )
+
+
 @functools.cache
 def _pack_index(k_rows: int, hidden: int, device: torch.device) -> torch.Tensor:
     """Where each element of one layer's packed W comes from: flat indices
@@ -530,9 +600,11 @@ def _pack_index(k_rows: int, hidden: int, device: torch.device) -> torch.Tensor:
 
 
 def pack_weights(params: Sequence[LSTMParams], d: int) -> torch.Tensor:
-    """Every layer's W, bf16, in the tensor-core encoders' B layout
+    """Every layer's W, bf16, in the tensor-core kernels' B layout
     (:func:`_pack_index`), one flat array, layer after layer; layer 0's
-    input rows padded with zero rows to a whole k16 step."""
+    first ``d`` rows (x, or the serve decoder's y) padded with zero rows to
+    a whole k16 step, its other rows (the serve decoder's context rows,
+    then h's) after them."""
     hidden = params[0].w.shape[1] // 4
     kx = -(-d // 16) * 16
     out = []
@@ -887,7 +959,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     kernels' own, or a probe build) → ``lib``."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
-    lib.fused_serve_launch.argtypes = [vp, vp, vp, arr, arr, arr, arr, vp, vp] + [i32] * 10 + [vp]
+    lib.fused_serve_launch.argtypes = [vp, vp, vp, arr, arr, arr, arr, vp, vp] + [i32] * 13 + [vp, vp]
+    lib.fused_serve_smem_bytes.argtypes = [i32] * 8
+    lib.fused_serve_smem_bytes.restype = ctypes.c_longlong
     lib.fused_encode_launch.argtypes = [vp, vp, arr, arr] + [i32] * 10 + [vp, vp]
     lib.peer_context_launch.argtypes = [vp] * 5 + [i32] * 11 + [vp, vp]
     lib.fused_decode_f32.argtypes = [vp] * 5 + [arr, arr, vp, vp] + [i32] * 7 + [vp]

@@ -56,46 +56,64 @@ from ..params import tree_leaves
 from . import _build
 from .fused_lstm import _no_tf32
 from .lstm_train import _n_sm
-from .transformer_encode import HIDDEN, MAX_LAYERS, check_card_tensors, check_tier, layer_pointers, refuse_grad
+from .transformer_encode import (HIDDEN, MAX_LAYERS, check_card_tensors, check_tier, layer_pointers, refuse_grad,
+                                 stored_matrix)
 
 __all__ = ["fused_ar_decode", "fused_ar_decode_shared", "fused_ar_decode_bf16", "MAX_D", "decode_rows",
            "decode_smem_bytes", "stream_chunks"]
 
 MAX_D = 4  # csrc/transformer_decode_mma.cuh MAX_D: coordinates a token
 _LDX, _LDB = HIDDEN + 4, HIDDEN + 8  # the kernel's f32 and bf16 row strides
+F32_KC = 16  # csrc/transformer_decode_f32mma.cuh F32_KC: k-columns of Wᵀ a chunk of the f32 stream
+_SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use (227 KB)
 
 
 def decode_rows(batch: int, n_sm: int) -> int:
-    """Rows a block of the bf16 tier's body (16 warps, one block an SM): 64
+    """Rows a block of either tier's body (16 warps, one block an SM): 64
     when the batch fills the card's ``n_sm`` SMs with such blocks, else 32,
     so that a smaller batch spreads over twice the SMs (the two shapes'
-    times at both sides of the switch: PERF.md, row 9c)."""
+    times at both sides of the switch: PERF.md, rows 9 and 9c)."""
     return 64 if -(-batch // 64) >= n_sm else 32
 
 
-def decode_smem_bytes(rows: int) -> int:
-    """Dynamic shared memory of a block of the bf16 tier's body at ``rows``
-    rows (csrc/transformer_decode_mma.cuh Shape<R>::SMEM): x, q, k and v in
+def decode_smem_bytes(rows: int, compute_dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of a block of the tier's body at ``rows`` rows.
+    bf16 (csrc/transformer_decode_mma.cuh Shape<R>::SMEM): x, q, k and v in
     f32, the products' A rows in bf16, the weight stream's two stages of
-    128 k-rows in bf16, the fed-back token."""
+    128 k-rows in bf16, the fed-back token. f32
+    (csrc/transformer_decode_f32mma.cuh F32Shape<R>::SMEM): x, the A rows,
+    q, k and v in f32, the weight stream's two stages of hi and lo planes of
+    ``F32_KC`` k-columns, the fed-back token. Raises for a block that the
+    kernel does not take, or that does not fit."""
     if rows not in (64, 32):
-        raise ValueError(f"the bf16 decode body takes blocks of 64 or 32 rows, got {rows}")
-    return 4 * rows * _LDX * 4 + (rows * _LDB + 2 * HIDDEN * _LDB) * 2 + rows * MAX_D * 4
+        raise ValueError(f"the decode bodies take blocks of 64 or 32 rows, got {rows}")
+    if compute_dtype == torch.bfloat16:
+        smem = 4 * rows * _LDX * 4 + (rows * _LDB + 2 * HIDDEN * _LDB) * 2 + rows * MAX_D * 4
+    else:
+        smem = (5 * rows * _LDX + 2 * 2 * HIDDEN * (F32_KC + 4) + rows * MAX_D) * 4
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"a decode block of {rows} rows needs {smem} bytes of shared memory, more than "
+                         f"{_SMEM_LIMIT}")
+    return smem
 
 
-def stream_chunks(peers: bool) -> list:
-    """The bf16 tier's weight stream over one layer-step, in the order its
-    products read it: (DecPtr leaf as (sub, leaf), first k-row, first
-    column) of each chunk of 128 k-rows x 128 columns. Self Wq, Wk, Wv, Wo;
-    cross Wq, Wo; peer Wq, Wo (``peers``); W1's four 128-column slabs; W2's
-    four 128-row slabs."""
+def stream_chunks(peers: bool, compute_dtype=torch.bfloat16) -> list:
+    """The tier's weight stream over one layer-step, in the order its
+    products read it: self Wq, Wk, Wv, Wo; cross Wq, Wo; peer Wq, Wo
+    (``peers``); W1's four 128-column slabs; W2's four 128-row slabs. bf16:
+    (DecPtr leaf as (sub, leaf), first k-row, first column) of each chunk of
+    W, 128 k-rows x 128 columns. f32: the same of each chunk of Wᵀ (the
+    kernel's B operand, k-contiguous), 128 rows (W's columns) x ``F32_KC``
+    columns (W's k-rows): (leaf, first row of Wᵀ, first column of Wᵀ)."""
     blocks = [(("self_attn", m), 0, 0) for m in ("wq", "wk", "wv", "wo")]
     blocks += [(("cross_attn", m), 0, 0) for m in ("wq", "wo")]
     if peers:
         blocks += [(("peer_attn", m), 0, 0) for m in ("wq", "wo")]
     blocks += [(("mlp", "w1"), 0, n0) for n0 in range(0, 4 * HIDDEN, HIDDEN)]
     blocks += [(("mlp", "w2"), k0, 0) for k0 in range(0, 4 * HIDDEN, HIDDEN)]
-    return blocks
+    if compute_dtype == torch.bfloat16:
+        return blocks
+    return [(leaf, n0, k0 + kc) for leaf, k0, n0 in blocks for kc in range(0, HIDDEN, F32_KC)]
 
 
 # the weights of a layer, for the shape checks
@@ -105,16 +123,16 @@ _DEC_WEIGHTS = tuple((sub, leaf) for sub in ("ln1", "ln2", "ln3", "ln4") for lea
 
 
 def _layer_tensors(layer, ck, cv, pk, pv, dtype):
-    """A layer's tensors in the kernel's DecPtr order, the matrices in the
-    tier's ``dtype``, with its projected cross K, V and peer K, V (None
-    without peers)."""
+    """A layer's tensors in the kernel's DecPtr order, the matrices as the
+    tier's body reads them (``stored_matrix``: bf16 W, or f32 Wᵀ), with its
+    projected cross K, V and peer K, V (None without peers)."""
     sa, ca, pa, m = layer["self_attn"], layer["cross_attn"], layer["peer_attn"], layer["mlp"]
 
     def ln(name):
         return [layer[name]["scale"], layer[name]["bias"]]
 
     def w(*mats):
-        return [t.to(dtype) for t in mats]
+        return [stored_matrix(t, dtype) for t in mats]
 
     return [*ln("ln1"), *w(sa["wq"], sa["wk"], sa["wv"], sa["wo"]), *ln("ln2"), *w(ca["wq"], ca["wo"]), ck, cv,
             *ln("ln3"), *w(pa["wq"], pa["wo"]), pk, pv, *ln("ln4"), *w(m["w1"]), m["b1"], *w(m["w2"]), m["b2"]]
@@ -233,16 +251,15 @@ def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, pee
     out = torch.empty((batch, t_out, d), device=dev, dtype=torch.float32)
     seg = kt if cfg.peer_pool == "mean" else t_out
     lib = _library()
+    rows = decode_rows(batch, _n_sm(dev))
+    decode_smem_bytes(rows, compute_dtype)
     args = [y0.data_ptr(), peer_valid.data_ptr() if kt else None, None if gid is None else gid.data_ptr(),
             None if peer_dv is None else peer_dv.data_ptr(), self_kv.data_ptr(), out.data_ptr(),
             ptrs, *[t.data_ptr() for t in glob], pos.data_ptr(),
-            batch, len(layers), t_in, t_out, d, kt, cfg.peer_window, seg]
+            batch, len(layers), t_in, t_out, d, kt, cfg.peer_window, seg, rows]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if bf16:
-            err = lib.transformer_decode_bf16(*args, decode_rows(batch, _n_sm(dev)), stream)
-        else:
-            err = lib.transformer_decode_f32(*args, stream)
+        launch = lib.transformer_decode_bf16 if bf16 else lib.transformer_decode_f32
+        err = launch(*args, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(
             f"transformer_decode kernel launch failed: "
@@ -287,12 +304,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib``'s C entry points typed for ctypes: a build of
     ``csrc/transformer_decode.cu``, the kernels' own or a probe build."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.transformer_decode_f32.argtypes = [vp] * 6 + [ctypes.POINTER(vp)] + [vp] * 6 + [i32] * 8 + [vp]
+    lib.transformer_decode_f32.argtypes = [vp] * 6 + [ctypes.POINTER(vp)] + [vp] * 6 + [i32] * 9 + [vp]
     lib.transformer_decode_bf16.argtypes = [vp] * 6 + [ctypes.POINTER(vp)] + [vp] * 6 + [i32] * 9 + [vp]
     for f in (lib.transformer_decode_f32, lib.transformer_decode_bf16, lib.transformer_decode_smem_bytes,
               lib.transformer_decode_probe_read):
         f.restype = i32
-    lib.transformer_decode_smem_bytes.argtypes = [i32]
+    lib.transformer_decode_smem_bytes.argtypes = [i32, i32]
     lib.transformer_decode_probe_read.argtypes = [vp]
     lib.transformer_decode_error_string.argtypes = [i32]
     lib.transformer_decode_error_string.restype = ctypes.c_char_p

@@ -6,45 +6,41 @@ Run from the root of a checkout: ``python3 scripts/torch_cell_bf16_probe.py``.
 Prints, on the card it finds (it fails without one):
 
 1. the card's name and power limit;
-2. the builds of ``csrc/fused_serve.cu``: the kernels' own and the design
-   before the tensor cores (``-DCELL_FMA``: the bf16 cell on the FMA body);
-   each bf16 cell instance's registers, spills and shared memory (``ptxas
-   -v``) and its count of ``HMMA`` instructions in the SASS;
+2. the build of ``csrc/fused_serve.cu``: the bf16 cell instance's
+   registers, spills and shared memory (``ptxas -v``) and its count of
+   ``HMMA`` instructions in the SASS;
 3. the kernel against ``lstm_cell`` on the bf16 tensors and on their f32
    widening at D_in = 3, 128 and 131 and B = 1, 257, 16383 and 16384: the
    largest gap of h and c to each;
 4. at B = 16384, D_in = 3 and 128, H = 128, the call as the serve path makes
-   it (the wrapper, back to back; CUDA events) in turns: the kernels' own
-   build, the ``-DCELL_FMA`` build and ``torch.lstm_cell`` on the bf16
-   tensors (W split into w_ih and w_hh); each one's device time a call
-   (``torch.profiler``) and host time a call (the host clock over 200 calls
-   before the card is waited for);
+   it (the wrapper, back to back; CUDA events) in turns with
+   ``torch.lstm_cell`` on the bf16 tensors (W split into w_ih and w_hh);
+   each one's device time a call (``torch.profiler``) and host time a call
+   (the host clock over 200 calls before the card is waited for);
 5. the ``cell="pallas"`` serve call of a bf16 ``seq2seq-tf-30`` at
-   B = 16384 (60 cell launches) on each build, in turns, with the card's
-   busy time a call (``torch.profiler``) and the host's time to issue one.
+   B = 16384 (60 cell launches), with the card's busy time a call
+   (``torch.profiler``) and the host's time to issue one.
 
 ``--f32`` prints only the f32 cell (row 2) and ``torch.lstm_cell`` on f32
 tensors at B = 16384, D_in = 3 and 128, in turns, with the host's time a
 call; ``--checkout DIR`` imports the port (and its ``chip_smoke.py``) from
 another checkout, such as an unpacked older commit, so that one call can
-time both, one process a checkout (parent, change, change, parent).
+time both, one process a checkout (parent, change, change, parent): the
+design before the tensor cores is an older checkout's.
 """
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-BUILDS = {"mma": (), "fma": ("CELL_FMA",)}
 
 
 def host_us(fn, calls=200):
@@ -104,34 +100,19 @@ def main():
         time_f32(cs, fused_lstm, LSTMParams, dev, smi, args.checkout)
         return
 
-    with ThreadPoolExecutor(len(BUILDS)) as pool:
-        builds = dict(zip(BUILDS, pool.map(lambda d: _build.build("fused_serve", d), BUILDS.values())))
-    libs = {name: fused_lstm.bind(ctypes.CDLL(str(b.path))) for name, b in builds.items()}
-    nvcc = _build.find_nvcc()
-    for name, b in builds.items():
-        sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", str(b.path)],
-                              capture_output=True, text=True, check=True).stdout
-        hmma, fn = 0, None
-        for ln in sass.splitlines():
-            if "Function :" in ln:
-                fn = "lstm_cell_kernel" in ln and "nv_bfloat16" in ln
-            elif fn and "HMMA" in ln:
-                hmma += 1
-        cs.BUILD_LOGS["fused_serve"] = b.log
-        res = cs.ptxas_resources("fused_serve", ("lstm_cell_kernel", "nv_bfloat16"))
-        print(f"build {name} ({' '.join(BUILDS[name]) or 'the kernels own'}; nvcc {b.seconds:.1f} s): "
-              f"lstm_cell_kernel<bf16> {hmma} HMMA instructions in its SASS; {json.dumps(res)}", flush=True)
-
-    own = fused_lstm._library  # the kernels' own build, as the serve path loads it
-
-    def on(name, fn):
-        """fn() with the wrapper on the build ``name`` (two attribute stores:
-        the kernels' own build is called as the serve path calls it)."""
-        fused_lstm._library = lambda: libs[name]
-        try:
-            return fn()
-        finally:
-            fused_lstm._library = own
+    b = _build.build("fused_serve")
+    sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass", str(b.path)],
+                          capture_output=True, text=True, check=True).stdout
+    hmma, fn = 0, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = "lstm_cell_kernel" in ln and "nv_bfloat16" in ln
+        elif fn and "HMMA" in ln:
+            hmma += 1
+    cs.BUILD_LOGS["fused_serve"] = b.log
+    res = cs.ptxas_resources("fused_serve", ("lstm_cell_kernel", "nv_bfloat16"))
+    print(f"build (nvcc {b.seconds:.1f} s): lstm_cell_kernel<bf16> {hmma} HMMA instructions in its SASS; "
+          f"{json.dumps(res)}", flush=True)
 
     def inputs(batch, d_in, seed):
         rng = np.random.default_rng(seed)
@@ -163,12 +144,11 @@ def main():
         def cell():
             return fused_lstm.fused_lstm_cell(p, x, (h, c))
 
-        fns = {"fma": lambda: on("fma", cell), "mma": cell,
-               "torch.lstm_cell": lambda: torch.lstm_cell(x, [h, c], w_ih, w_hh, p.b, b_hh)}
+        fns = {"kernel": cell, "torch.lstm_cell": lambda: torch.lstm_cell(x, [h, c], w_ih, w_hh, p.b, b_hh)}
         with torch.inference_mode():
             ms = cs.in_turns(fns, dict.fromkeys(fns, 50))
-            # the kernels: the mean of the profiler's records of a launch (and how many it kept of 20)
-            dev_ms = {k: cs.launch_device_ms(fns[k], "lstm_cell_kernel", 20) for k in ("fma", "mma")}
+            # the kernel: the mean of the profiler's records of a launch (and how many it kept of 20)
+            dev_ms = {"kernel": cs.launch_device_ms(fns["kernel"], "lstm_cell_kernel", 20)}
             dev_ms["torch.lstm_cell"] = cs.device_ms(fns["torch.lstm_cell"], 20)
             host = {k: host_us(f) for k, f in fns.items()}
         print(f"B=16384, D_in={d_in}, H=128, bf16: a call as the serve path makes it (ms, CUDA events, in turns; "
@@ -182,10 +162,9 @@ def main():
     past = cs.unit_rows(np.random.default_rng(13), dev, (16384, cfg.model.h_in))
     serve = infer.make_predict_fn(bparams, cfg, device=dev, impl="plain")
 
-    calls = {"fma": lambda: on("fma", lambda: serve(past)), "mma": lambda: serve(past)}
+    calls = {"kernel": lambda: serve(past)}
     with torch.inference_mode():
-        gap = (calls["mma"]() - calls["fma"]()).abs().max().item()
-        ms = cs.in_turns(calls, {"fma": 10, "mma": 10})
+        ms = cs.in_turns(calls, {"kernel": 10})
         # the card's busy time a call (the kernels torch.profiler records,
         # summed) and the host's time to issue a call: a call whose busy
         # time is well under its wall time waits on the host
@@ -193,8 +172,7 @@ def main():
         host = {k: host_us(f, 10) / 1e3 for k, f in calls.items()}
     print(f"seq2seq-tf-30 cell=pallas bf16 serve call at B=16384 (60 cell launches; ms, CUDA events, in turns; {smi}): "
           f"{json.dumps(ms)}, traj/s {json.dumps({k: 16384e3 / v for k, v in ms.items()})}; device busy a call "
-          f"(ms, torch.profiler) {json.dumps(busy)}; host time to issue a call (ms) {json.dumps(host)}; max |xyz "
-          f"gap| between the two builds {gap:.3e}", flush=True)
+          f"(ms, torch.profiler) {json.dumps(busy)}; host time to issue a call (ms) {json.dumps(host)}", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""Probe of the PyTorch port's bf16 LSTM encoders on one NVIDIA card: the
-lockstep tier's peer context (``ops.fused_lstm.peer_context``) and the
-whole-sequence encoder (``ops.fused_lstm.fused_encode``), both in
-``csrc/fused_serve.cu``.
+"""Probe of the PyTorch port's bf16 LSTM kernels on the tensor cores
+(``csrc/lstm_mma.cuh``) on one NVIDIA card: the lockstep tier's peer context
+(``ops.fused_lstm.peer_context``), the whole-sequence encoder
+(``ops.fused_lstm.fused_encode``) and the serve kernel
+(``ops.fused_lstm.fused_serve``, row 1b), all in ``csrc/fused_serve.cu``.
 
 Run from the root of a checkout: ``python3 scripts/torch_lstm_encode_probe.py``.
 ``--checkout DIR`` imports the port (and its ``chip_smoke.py``) from another
@@ -10,10 +11,10 @@ skips the probe build, which that checkout may lack. Prints, on the card it
 finds (it fails without one):
 
 1. the card's name and power limit, each build's registers and spills, and
-   the SASS of both bf16 kernels (``cuobjdump -sass``) by opcode: HMMA
+   the SASS of the bf16 kernels (``cuobjdump -sass``) by opcode: HMMA
    (tensor-core products), MUFU (the cell's exp and reciprocal), the FMA
    units' float operations, shared-memory loads and stores, barriers;
-2. both kernels in both compute types against their plain versions at the
+2. both encoders in both compute types against their plain versions at the
    card tests' shapes (``tests/test_torch_kernel_cuda.py``): the largest
    absolute gap to the plain version of the same tier (and, in bf16, to
    the f32 one), and whether a repeat is bit-equal;
@@ -24,9 +25,15 @@ finds (it fails without one):
    f32 tier and, at the smaller shapes, cuDNN's ``nn.LSTM`` in bf16;
 4. unless ``--self-only``: the time split of the probe build
    (``-DLSTM_PROBE``: thread 0 of every block adds its ``clock64`` deltas
-   per part, ``LstmPart`` order) of both bf16 kernels at those shapes;
-5. with ``--serve`` only: the serve call end to end (``chip_smoke.serve_call``:
-   normalize, the kernels, denormalize, the tile mask; CUDA events) of
+   per part, ``LstmPart`` order) of the bf16 kernels at those shapes and
+   of the bf16 serve kernel at row 1b's three shapes (5.);
+5. with ``--serve`` only: the serve kernel alone in bf16 beside its f32
+   twin, in turns, at row 1b's three shapes (``seq2seq-tf-30`` without
+   context at B = 262,144; ``stacked-ss-crossuser``'s static context,
+   L = 2, C = 128, at 65,536; ``stacked-ss-crossuser-10s``'s lockstep serve
+   kernel fed a per-step context, 100 + 100 steps, at 65,536), and the
+   serve call end to end (``chip_smoke.serve_call``: normalize, the
+   kernels, denormalize, the tile mask; CUDA events) of
    ``stacked-ss-crossuser-10s`` (the peer context and the lockstep serve
    kernel) and ``stacked-ss-crossuser`` (the encoder and the static serve
    kernel) at B = 65,536 in bf16 and f32, in turns, one process a checkout,
@@ -40,12 +47,13 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PARTS = ("stage x", "products", "cell", "publish", "barriers")
+PARTS = ("stage x or ctx", "products", "cell", "publish", "barriers", "feedback")
 # the card tests' shapes: peer context (batch, K, T, C), encoder (rows, layers, hidden)
 PEER_SHAPES = ((1, 7, 20, 128), (13, 3, 20, 128), (4099, 7, 20, 128), (4099, 8, 20, 128), (257, 4, 20, 64),
                (257, 8, 20, 96), (300, 1, 20, 32))
@@ -53,8 +61,8 @@ ENC_SHAPES = ((1, 1, 128), (257, 2, 128), (16387, 1, 128), (4099, 3, 128), (300,
 
 
 def sass_opcodes(lib_path):
-    """The static instruction counts of the bf16 peer context and encoder in
-    a build's SASS: in all, and by opcode class."""
+    """The static instruction counts of the bf16 peer context, encoder and
+    serve kernels in a build's SASS: in all, and by opcode class."""
     from longterm360fov_tpu_torch.ops import _build
 
     sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass", str(lib_path)],
@@ -64,8 +72,10 @@ def sass_opcodes(lib_path):
     counts, fn = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            fn = next((n for n in ("peer_context_kernel", "fused_encode_kernel") if n in ln and "nv_bfloat16" in ln),
-                      None)
+            fn = next((n for n in ("peer_context_kernel", "fused_encode_kernel", "fused_serve_kernel")
+                       if n in ln and "nv_bfloat16" in ln), None)
+            if fn == "fused_serve_kernel":
+                fn += "<true>" if "ILb1E" in ln else "<false>"
             if fn:
                 counts[fn] = dict.fromkeys(["all", *classes], 0)
         elif fn and "/*" in ln and ";" in ln:
@@ -80,13 +90,53 @@ def sass_opcodes(lib_path):
     return counts
 
 
+def serve_shapes(chip_smoke, dev):
+    """Row 1b's three shapes of the serve kernel: "<shape> <tier>" → a call
+    of the kernel (``fused_lstm._launch_serve``, on the library that
+    ``fused_lstm._library`` gives when it runs) on the tier's weights, for
+    the bf16 tier and its f32 twin."""
+    from longterm360fov_tpu_torch import cli, windows
+    from longterm360fov_tpu_torch.config import get_preset
+    from longterm360fov_tpu_torch.ops import fused_lstm
+    from longterm360fov_tpu_torch.params import params_from_numpy
+
+    bf, shapes = torch.bfloat16, {}
+    for label, preset, batch in (("no context B=262144", "seq2seq-tf-30", 262144),
+                                 ("static context B=65536", "stacked-ss-crossuser", 65536),
+                                 ("lockstep serve kernel B=65536", "stacked-ss-crossuser-10s", 65536)):
+        cfg = get_preset(preset)
+        m = cfg.model
+        params = params_from_numpy(cli.bench_params_np(cfg, 0), dev)
+        rng = np.random.default_rng(1)
+        x = windows.normalize_window(chip_smoke.unit_rows(rng, dev, (batch, m.h_in)))[0].contiguous()
+        ctx, step = None, bool(m.peer_align)
+        if m.ctx_dim:  # the lockstep tier's per-step context, or a static one
+            ctx = chip_smoke.randn(rng, dev, (batch, m.h_out, m.ctx_dim) if step else (batch, m.ctx_dim), 0.3)
+        for cd in (bf, torch.float32):
+            enc, dec = fused_lstm._in_tier(params["encoder"], cd), fused_lstm._in_tier(params["decoder"], cd)
+            pw, pb = params["proj"]["w"].to(cd).contiguous(), params["proj"]["b"].float()
+            shapes[f"{label} {str(cd)[6:]}"] = (lambda enc=enc, dec=dec, pw=pw, pb=pb, x=x, ctx=ctx, step=step, cd=cd,
+                                                t=m.h_out: fused_lstm._launch_serve(enc, dec, pw, pb, x, t, ctx,
+                                                                                    step_ctx=step, compute_dtype=cd))
+    return shapes
+
+
 def time_serve(chip_smoke, dev, smi):
-    """The serve calls of the two crossuser presets (5. above)."""
+    """The serve kernel alone and the serve calls of the two crossuser
+    presets (5. above)."""
     from longterm360fov_tpu_torch import cli
     from longterm360fov_tpu_torch.config import get_preset
     from longterm360fov_tpu_torch.models import cross_user
     from longterm360fov_tpu_torch.params import params_from_numpy
 
+    shapes = serve_shapes(chip_smoke, dev)
+    for label in {k.rsplit(" ", 1)[0] for k in shapes}:
+        fns = {cd: shapes[f"{label} {cd}"] for cd in ("bfloat16", "float32")}
+        with torch.inference_mode():
+            ms = chip_smoke.in_turns(fns, dict.fromkeys(fns, 2))
+        print(f"the serve kernel alone, {label} (ms, CUDA events, in turns; {smi}): {json.dumps(ms)}", flush=True)
+    del shapes
+    torch.cuda.empty_cache()
     out = {}
     for preset, iters in (("stacked-ss-crossuser-10s", 1), ("stacked-ss-crossuser", 3)):
         cfg = get_preset(preset)
@@ -96,6 +146,11 @@ def time_serve(chip_smoke, dev, smi):
         out[preset] = chip_smoke.in_turns(calls, dict.fromkeys(calls, iters))
         torch.cuda.empty_cache()
     print(f"serve calls at B=65536 (ms a call, CUDA events, in turns; {smi}): {json.dumps(out)}", flush=True)
+
+
+def _with_lib(fused_lstm, lib, fn):
+    with mock.patch.object(fused_lstm, "_library", lambda: lib):
+        return fn()
 
 
 def main():
@@ -198,6 +253,10 @@ def main():
     calls = {"peer_context B=4096": lambda: fused_lstm.launch_peer_context(lib, tier_peer, *cases[4096], bf),
              "peer_context B=65536": lambda: fused_lstm.launch_peer_context(lib, tier_peer, *cases[65536], bf),
              "fused_encode 65536 rows": lambda: fused_lstm.launch_encode(lib, tier_ps, xs, bf)}
+    with mock.patch.object(fused_lstm, "_library", lambda: lib):
+        serve = serve_shapes(chip_smoke, dev)  # the serve kernel on the probe build
+    calls.update({f"fused_serve {k}": (lambda fn=fn: _with_lib(fused_lstm, lib, fn))
+                  for k, fn in serve.items() if k.endswith("bfloat16")})
     for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()

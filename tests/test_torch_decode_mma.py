@@ -1,7 +1,8 @@
-"""The host side of the bf16 kernels on the tensor cores that carry one
-step or one rollout: the transformer decode's bf16 body
-(``csrc/transformer_decode_mma.cuh``: the rows-a-block chooser, its shared
-memory and its weight stream's order) and the bf16 LSTM cell
+"""The host side of the kernels on the tensor cores that carry one step or
+one rollout: the transformer decode's bf16 body
+(``csrc/transformer_decode_mma.cuh``) and f32 body on three-pass TF32
+(``csrc/transformer_decode_f32mma.cuh``: the rows-a-block chooser, their
+shared memory and their weight streams' order) and the bf16 LSTM cell
 (``csrc/lstm_mma.cuh`` cell_step: its block and its ring over W as stored),
 on the CPU. The kernels themselves are held against their plain versions on
 the card (``tests/test_torch_kernel_cuda.py``)."""
@@ -51,6 +52,25 @@ def test_decode_block_fits_at_every_depth_and_tier(layers, tier):
 def test_decode_smem_refuses_other_blocks():
     with pytest.raises(ValueError, match="64 or 32 rows"):
         td.decode_smem_bytes(48)
+
+
+@pytest.mark.parametrize("rows", [64, 32])
+@pytest.mark.parametrize("layers", range(1, 9))
+def test_f32_decode_block_fits_at_every_depth(layers, rows):
+    """The f32 body's block (x, the A rows, q, k and v in f32; the weight
+    stream's two stages of hi and lo planes of 16 k-columns; the fed-back
+    token) fits at every L <= 8 and both row counts: the layout holds one
+    layer at a time, the MLP's hidden layer in four slabs over q, k, v and
+    the A rows."""
+    smem = td.decode_smem_bytes(rows, torch.float32)
+    assert smem == {64: 210944, 32: 125952}[rows] <= SMEM
+    assert 4 * rows * (4 * 128 + 4) <= smem  # u's four 128-column slabs fit over four (rows, LDX) buffers
+
+
+@pytest.mark.parametrize("rows", [0, 16, 48, 96, 128])
+def test_f32_decode_smem_refuses_other_blocks(rows):
+    with pytest.raises(ValueError, match=f"64 or 32 rows, got {rows}"):
+        td.decode_smem_bytes(rows, torch.float32)
 
 
 def _layer(peers):
@@ -134,3 +154,33 @@ def test_cell_ring_over_w_as_stored_is_the_gate_product(d_in, hidden):
         acc += z[:, zc:zc + 16] @ stage
     assert torch.equal(seen, torch.ones_like(seen))
     torch.testing.assert_close(acc, mm(torch.cat([x, h], dim=1), w, bf), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("peers", [True, False])
+def test_f32_stream_chunks_follow_the_layers_products(peers):
+    """The f32 stream's chunks of Wᵀ (128 rows x 16 k-columns), taken in
+    order and cut at each product's depth, are the products' Wᵀ blocks in
+    the order the layer runs them, as the bf16 stream's are: the same
+    products over the same k-rows, k-contiguous."""
+    chunks = td.stream_chunks(peers, torch.float32)
+    assert len(chunks) == (16 if peers else 14) * 128 // td.F32_KC
+    layer = _layer(peers)
+    mats = [layer["self_attn"][m] for m in ("wq", "wk", "wv", "wo")]
+    mats += [layer["cross_attn"][m] for m in ("wq", "wo")]
+    mats += [layer["peer_attn"][m] for m in ("wq", "wo")] if peers else []
+    mats += [layer["mlp"]["w1"][:, n0:n0 + 128] for n0 in range(0, 512, 128)]
+    mats += [layer["mlp"]["w2"][k0:k0 + 128] for k0 in range(0, 512, 128)]
+    it = iter(chunks)
+    for want in mats:
+        pieces = []
+        for _ in range(128 // td.F32_KC):
+            (sub, leaf), n0, k0 = next(it)
+            wt = layer[sub][leaf].t()  # the kernel's B operand
+            assert n0 % 128 == 0 and k0 % td.F32_KC == 0 and n0 + 128 <= wt.shape[0] and k0 + 16 <= wt.shape[1]
+            pieces.append(wt[n0:n0 + 128, k0:k0 + td.F32_KC])
+        got = torch.cat(pieces, dim=1)  # one 128 x 128 block of Wᵀ, k-contiguous
+        assert torch.equal(got.t(), want)
+        x = torch.randn(5, 128, generator=torch.Generator().manual_seed(3))
+        torch.testing.assert_close(sum(x[:, k0:k0 + 16] @ p.t() for k0, p in zip(range(0, 128, 16), pieces)),
+                                   x @ want, rtol=1e-5, atol=1e-5)
+    assert next(it, None) is None

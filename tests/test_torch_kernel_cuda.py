@@ -1240,6 +1240,125 @@ def test_bf16_decode_tensor_core_shapes(layers, h_in, h_out, batch, d, k, pool, 
         assert (out[masked] - alone[masked]).abs().max().item() <= BF16_TOL
 
 
+# The f32 decode's body on three-pass TF32 (decode_rows_tf32) at the same
+# edges: 64-row blocks (B = 8400, a ragged last block) and 32-row ones, L = 1
+# and 8, d = 1 and 4, t_out = 1, every tier (per row, pooled, windowed,
+# group-shared with δv); within 3e-5 of the exact-f32 plain version, rows
+# with every peer masked equal to the peerless rollout, repeats bit-equal.
+@pytest.mark.parametrize("layers,h_in,h_out,batch,d,k,pool,window,grouped", [
+    (2, 30, 30, 8400, 3, 4, "none", 0, False),
+    (2, 30, 30, 8400, 3, 0, "none", 0, False),
+    (2, 30, 30, 8400, 3, 4, "none", 8, True),
+    (2, 30, 30, 8400, 3, 4, "mean", 2, False),
+    (1, 6, 9, 100, 1, 4, "mean", 2, False),
+    (8, 4, 1, 33, 4, 3, "none", 0, False),
+    (2, 12, 12, 70, 4, 4, "none", 3, True),
+    (2, 30, 30, 257, 3, 4, "mean", 0, True),
+])
+def test_f32_decode_tensor_core_shapes(layers, h_in, h_out, batch, d, k, pool, window, grouped):
+    if grouped:
+        cfg, params, enc, y0, gmem, gvalid, gid, dv = _shared_case(layers, h_in, h_out, batch, k, pool, window,
+                                                                   seed=layers + d, d=d)
+        peers = {"peer_gmem": gmem, "peer_gvalid": gvalid, "peer_gid": gid, "peer_dv": dv}
+        plain_peers, plain_kw = (gmem, gvalid), {"peer_gid": gid.long(), "peer_dv": dv}
+        wrapper = transformer_decode.fused_ar_decode_shared
+    else:
+        cfg, params, _, enc, y0, pm, pv = _tfm_case(layers, h_in, h_out, batch, k, pool, window, seed=layers + d, d=d)
+        peers = {"peer_mem": pm, "peer_valid": pv} if k else {}
+        plain_peers, plain_kw = (pm, pv), {}
+        wrapper = transformer_decode.fused_ar_decode
+    assert transformer_decode.decode_rows(batch, torch.cuda.get_device_properties(0).multi_processor_count) == (
+        64 if batch == 8400 else 32)
+    before = wrapper.launches
+    out = transformer_decode.fused_ar_decode(params, cfg, enc, y0, **peers)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert out.shape == (batch, h_out, d) and torch.isfinite(out).all()
+    ref = transformer._ar_decode(params, cfg, enc, *plain_peers, y0, **plain_kw)
+    assert (out - ref).abs().max().item() <= 3e-5
+    assert torch.equal(out, transformer_decode.fused_ar_decode(params, cfg, enc, y0, **peers))
+    if k:  # rows with every peer masked: the peerless rollout
+        masked = gid == 2 if grouped else torch.arange(batch, device="cuda") == 0
+        alone = transformer_decode.fused_ar_decode(params, cfg, enc, y0)
+        assert (out[masked] - alone[masked]).abs().max().item() <= 3e-5
+
+
+def test_decode_refuses_blocks_it_does_not_take():
+    for cd in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="64 or 32 rows, got 48"):
+            transformer_decode.decode_smem_bytes(48, cd)
+    lib = transformer_decode._library()
+    assert [lib.transformer_decode_smem_bytes(r, b) for r in (64, 32) for b in (0, 1)] == [
+        transformer_decode.decode_smem_bytes(r, cd) for r in (64, 32) for cd in (torch.float32, torch.bfloat16)]
+    assert lib.transformer_decode_smem_bytes(48, 0) == -1
+
+
+# The bf16 serve kernel's body on the tensor cores (lstm_mma.cuh's server)
+# on both W routes (resident at L = 1 without context, streamed from L2 at
+# L = 2 and at C = 128), in 32-row tiles (MT = 2, the chooser's) and 16-row
+# ones (MT = 1, a block of 16 rows forced), in its three tiers, at ragged
+# batches; with the gates of the bf16 tiers above.
+@pytest.mark.parametrize("rows", [0, 16])
+@pytest.mark.parametrize("layers,ctx_dim,tier", [(1, 0, "none"), (1, 64, "static"), (2, 128, "static"),
+                                                 (2, 64, "static"), (2, 128, "lockstep"), (1, 128, "lockstep")])
+@pytest.mark.parametrize("batch", [1, 4099])
+def test_bf16_serve_tensor_core_shapes(batch, layers, ctx_dim, tier, rows, monkeypatch):
+    choose = fused_lstm.serve_tc_rows
+    monkeypatch.setattr(fused_lstm, "serve_tc_rows", lambda *a, **kw: choose(*a, rows=rows, **kw))
+    geo = fused_lstm.serve_tc_rows(128, layers, 3, ctx_dim, tier == "lockstep")
+    assert geo.mt == (1 if rows == 16 else 2) and (rows or geo.w_res == (layers == 1 and ctx_dim == 0))
+    rng = np.random.default_rng(layers + ctx_dim)
+    enc, dec = _stack(rng, 3, layers), _stack(rng, 3 + ctx_dim, layers)
+    pw, pb = _cuda(rng, (128, 3), 0.1), _cuda(rng, (3,), 0.1)
+    t_in = t_out = 30
+    x = _cuda(rng, (batch, t_in, 3), 0.1)
+    kw = {"context": _cuda(rng, (batch, ctx_dim))} if tier == "static" else {}
+    if tier == "lockstep":
+        peer = _stack(rng, 3, 1, hidden=ctx_dim)[0]
+        _, pxs, w = _peer_case(batch, 7, t_out, seed=layers)
+        kw = dict(peer_params=peer, peer_xs=pxs, peer_w=w)
+    wrapper = fused_lstm.fused_serve_peers if tier == "lockstep" else fused_lstm.fused_serve
+    before = wrapper.launches_bf16
+    out = fused_lstm.fused_serve(enc, dec, pw, pb, x, t_out, compute_dtype=BF, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches_bf16 == before + 1
+    assert out.shape == (batch, t_out, 3)
+    _check([out], _plains(BF, lambda c: [fused_lstm.fused_serve_reference(enc, dec, pw, pb, x, t_out, compute_dtype=c,
+                                                                          **kw)]), "serve", BF)
+    assert torch.equal(out, fused_lstm.fused_serve(enc, dec, pw, pb, x, t_out, compute_dtype=BF, **kw))
+
+
+def test_bf16_serve_refuses_what_the_tensor_cores_do_not_take():
+    rng = np.random.default_rng(0)
+    enc, dec = _stack(rng, 3, 1), _stack(rng, 3 + 8, 1)
+    pw, pb = _cuda(rng, (128, 3)), _cuda(rng, (3,))
+    with pytest.raises(ValueError, match="ctx_dim % 16 == 0, got 8"):
+        fused_lstm.fused_serve(enc, dec, pw, pb, _cuda(rng, (4, 5, 3)), 3, context=_cuda(rng, (4, 8)),
+                               compute_dtype=BF)
+    out = fused_lstm.fused_serve(enc, dec, pw, pb, _cuda(rng, (4, 5, 3)), 3, context=_cuda(rng, (4, 8)))
+    assert torch.isfinite(out).all()  # the f32 tier takes it
+    lib = fused_lstm._library()
+    assert lib.fused_serve_smem_bytes(64, 3, 128, 128, 2, 0, 1, 1) == fused_lstm.serve_tc_rows(128, 2, 3, 128,
+                                                                                                True).smem
+
+
+def test_fused_decode_on_bf16_states_runs_the_f32_kernel():
+    """The bf16 serve body takes no given states: fused_decode widens a bf16
+    model's tensors to f32 and launches the f32 decode kernel, whose answer
+    equals that of the widened tensors."""
+    rng = np.random.default_rng(5)
+    dec = [LSTMParams(p.w.to(BF), p.b.to(BF)) for p in _stack(rng, 3, 2)]
+    pw, pb = _cuda(rng, (128, 3), 0.1).to(BF), _cuda(rng, (3,), 0.1).to(BF)
+    h0, c0 = _cuda(rng, (2, 300, 128), 0.3).to(BF), _cuda(rng, (2, 300, 128), 0.3).to(BF)
+    y0 = _cuda(rng, (300, 3), 0.1).to(BF)
+    before = (fused_lstm.fused_decode.launches, fused_lstm.fused_serve.launches_bf16)
+    out = fused_lstm.fused_decode(dec, pw, pb, h0, c0, y0, 10)
+    assert (fused_lstm.fused_decode.launches, fused_lstm.fused_serve.launches_bf16) == (before[0] + 1, before[1])
+    wide = fused_lstm.fused_decode([LSTMParams(p.w.float(), p.b.float()) for p in dec], pw.float(), pb.float(),
+                                   h0.float(), c0.float(), y0.float(), 10)
+    assert torch.equal(out, wide)
+
+
 @pytest.mark.parametrize("hidden", [32, 96, 128, 160, 256])
 @pytest.mark.parametrize("d_in", [3, 128])
 @pytest.mark.parametrize("batch", [16384, 16383])

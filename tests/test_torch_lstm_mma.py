@@ -1,6 +1,7 @@
-"""The host side of the bf16 LSTM encoders on the tensor cores
-(``csrc/lstm_mma.cuh``: ``peer_context`` and ``fused_encode`` in bf16): the
-packed weight layout and the block choosers, on the CPU. The kernels
+"""The host side of the bf16 LSTM kernels on the tensor cores
+(``csrc/lstm_mma.cuh``: ``peer_context``, ``fused_encode`` and the serve
+kernel in bf16): the packed weight layout and the block choosers, on the
+CPU. The kernels
 themselves are held against their plain versions on the card
 (``tests/test_torch_kernel_cuda.py``)."""
 
@@ -133,3 +134,67 @@ def test_tc_choosers_raise_for_shapes_they_do_not_take():
         except ValueError:
             continue
         fused_lstm.peer_tc_rows(128, k, 3)
+
+
+@pytest.mark.parametrize("ctx_dim", [0, 64, 128])
+def test_packed_decoder_layer0_is_the_bf16_gate_product(ctx_dim):
+    """The serve decoder's layer 0 reads z's row [y padded to a k16 step |
+    ctx | h_0] as one run: against pack_weights' layer 0 of its W ((d + C +
+    H) x 4H), the plain product over the packed layout equals [y, ctx, h]
+    @ W with the operands rounded to bf16 and f32 sums."""
+    rng = np.random.default_rng(ctx_dim)
+    d, hidden, rows = 3, 128, 29
+    layer = _layer(rng, d + ctx_dim, hidden)
+    packed = fused_lstm.pack_weights([layer], d)
+    assert packed.numel() == (16 + ctx_dim + hidden) * 4 * hidden
+    y = torch.tensor(rng.normal(size=(rows, d)).astype(np.float32))
+    ctx = torch.tensor(rng.normal(size=(rows, ctx_dim)).astype(np.float32))
+    h = torch.tensor(rng.uniform(-1, 1, size=(rows, hidden)).astype(np.float32))
+    bf = torch.bfloat16
+    z = torch.cat([round_to(y, bf), torch.zeros(rows, 16 - d), round_to(ctx, bf), round_to(h, bf)], dim=1)
+    got = _packed_product(z, packed, hidden)
+    torch.testing.assert_close(got, mm(torch.cat([y, ctx, h], dim=1), layer.w, bf), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("preset,layers,ctx_dim,step_ctx,want", [
+    ("seq2seq-tf-30", 1, 0, False, (64, 2, 16, True, True, 218624)),            # W resident: 144 KB a phase
+    ("stacked-ss-crossuser", 2, 128, False, (64, 2, 16, False, True, 136704)),  # W from L2
+    ("stacked-ss-crossuser-10s", 2, 128, True, (64, 2, 16, False, True, 169472)),  # and ctx_t+1 in f32
+    ("video-fusion", 2, 64, False, (64, 2, 16, False, True, 128512)),
+])
+def test_serve_tc_rows_at_the_preset_shapes(preset, layers, ctx_dim, step_ctx, want):
+    """Every serving preset's shape is taken in 64-row blocks of 16 warps:
+    W resident where the larger phase's packed W fits beside the state
+    (seq2seq-tf-30), else read from L2, c in shared memory."""
+    from longterm360fov_tpu_torch.config import get_preset
+    m = get_preset(preset).model
+    assert (m.layers, m.ctx_dim, bool(m.peer_align)) == (layers, ctx_dim, step_ctx)
+    geo = fused_lstm.serve_tc_rows(m.hidden, m.layers, m.d, m.ctx_dim, step_ctx)
+    assert geo[1:] == want
+    assert geo.smem == fused_lstm._serve_smem(geo.rp, m.d, m.ctx_dim, m.hidden, m.layers, geo.w_res, geo.c_smem,
+                                              step_ctx) <= SMEM
+
+
+@pytest.mark.parametrize("layers", range(1, 9))
+@pytest.mark.parametrize("ctx_dim", [0, 64, 128])
+def test_serve_tc_rows_takes_every_depth(layers, ctx_dim):
+    """L = 1..8 at C = 0, 64, 128 in both tiers, T_in and T_out anything:
+    always 64 rows; 16-row blocks (MT = 1) where forced."""
+    for step in (False, True) if ctx_dim else (False,):
+        geo = fused_lstm.serve_tc_rows(128, layers, 3, ctx_dim, step)
+        assert (geo.rp, geo.mt, geo.warps) == (64, 2, 16) and geo.smem <= SMEM
+        small = fused_lstm.serve_tc_rows(128, layers, 3, ctx_dim, step, rows=16)
+        assert (small.rp, small.mt, small.warps) == (16, 1, 4) and small.smem <= SMEM
+
+
+def test_serve_tc_rows_refuses_what_it_does_not_take():
+    with pytest.raises(ValueError, match="hidden % 32 == 0, got 48"):
+        fused_lstm.serve_tc_rows(48, 1, 3)
+    with pytest.raises(ValueError, match="1..8 layers, got 9"):
+        fused_lstm.serve_tc_rows(128, 9, 3)
+    with pytest.raises(ValueError, match="ctx_dim % 16 == 0, got 8"):
+        fused_lstm.serve_tc_rows(128, 1, 3, 8)
+    with pytest.raises(ValueError, match="blocks of 16, 32, 64, 128 or 256 rows, got 48"):
+        fused_lstm.serve_tc_rows(128, 1, 3, rows=48)
+    with pytest.raises(ValueError, match=r"block of 16 rows needs \d+ bytes of shared memory"):
+        fused_lstm.serve_tc_rows(1024, 8, 3, 128, True)
