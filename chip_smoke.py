@@ -16,7 +16,10 @@ one line each or more:
    the lockstep peer backward (``align_peer_bwd_kernel``: both products on
    ``mma.sync``, three-pass TF32 in f32, bf16 in bf16), the bf16 tiers of
    the peer context, the encoder, the serve kernel and the cell
-   (``lstm_mma.cuh``: ``mma.sync`` bf16) and both block shapes of both
+   (``lstm_mma.cuh``: ``mma.sync`` bf16), the f32 tiers of the peer context
+   and the serve kernel (``lstm_mma.cuh``, three-pass TF32; each block's
+   shared memory as the library and the chooser count it) and both block
+   shapes of both
    tiers of the transformer decode (``transformer_decode_mma.cuh``, bf16;
    ``transformer_decode_f32mma.cuh``, three-pass TF32; 64 and 32 rows);
 3. each kernel against its plain PyTorch version at full width (hidden 128),
@@ -55,7 +58,11 @@ one line each or more:
    bit-equal (and the f32 encoder kernels at T = 1 and L = 8 too, the
    serving kernel's repeat bit-equal); ``fused_lstm_cell`` (D_in = 3 and 128, B = 16384 and 16383)
    against ``lstm_cell``; ``fused_decode`` (L = 1 and 2, C = 0 and 128, 30
-   steps, B = 16383) against its plain version; the bf16 tiers of
+   steps, B = 16383) against its plain version; the f32 serve kernel
+   (C = 0, 128 and 12, the last padded to a k8 step), ``fused_decode`` and
+   the lockstep tier (100 + 100 steps) in the choosers' 64-row blocks and
+   in 32-row ones, at ragged batches, each repeat bit-equal and each row
+   bit-equal in a permuted batch; the bf16 tiers of
    ``fused_encode_tokens`` and ``fused_ar_decode`` at both transformer
    presets' shapes (per row: no peers, K = 4 "none" and "mean", the
    windows; the shared tier with δv) against their bf16 plain versions
@@ -81,7 +88,13 @@ one line each or more:
 4. the ``seq2seq-tf-30`` serving main path: ``serving.make_serve_fn`` behind
    a ``DynamicBatcher`` answers 64 concurrent single-viewer requests and one
    bulk request; every answer equals the direct batched call and the numpy
-   oracle. Then serve-bench and ``fused_serve`` alone, kernel against plain;
+   oracle. Then serve-bench and ``fused_serve`` alone, kernel against plain,
+   beside its time before its three-pass TF32 design (``BEFORE``), its
+   bound (the gate products at 495 / 3 TFLOP/s, the feedback on the FMA
+   units) and the FMA units' bound; phases 4b (``fused_decode``), 6 (the
+   static-context ``fused_serve``), 8 (the lockstep serve kernel and
+   ``peer_context``) and 10 (``fused_serve`` at C = 64) report theirs the
+   same way;
    4b. the same preset on the paths of the cell and decode kernels:
    ``cell="pallas"`` served by ``make_serve_fn(impl="plain")`` behind the
    batcher at B = 16384 (60 ``fused_lstm_cell`` launches a call), and
@@ -278,10 +291,15 @@ CU10_PRESET = "stacked-ss-crossuser-10s"
 FU_PRESET = "video-fusion"
 TF_PRESET = "transformer-30"
 TF10_PRESET = "transformer-10s"
-KERNEL_TOL = 1e-4  # serve kernel vs plain, normalized outputs, f32 after 60 steps
+# serve kernel vs plain, normalized outputs after 60 to 200 steps; the f32
+# tier's products are three-pass TF32 (21 bits an operand, a_lo·b_lo dropped,
+# chunked f32 sums) in another order than the plain version's exact f32
+KERNEL_TOL = 1e-4
 ORACLE_TOL = 1e-4  # batcher answers vs the numpy oracle or the CPU plain path, unit xyz
-# encode kernel vs plain: exact f32 FMAs in another order over 30 steps of a
-# bounded state (|h| < 1)
+# encode kernel vs plain, f32 over 30 steps of a bounded state (|h| < 1):
+# exact f32 FMAs in another order; the peer context over 100 steps, its
+# products in three-pass TF32 (about 2^-21 of each product, summed in
+# chunks of 32 k-rows), its context summed in the plain version's order
 ENC_TOL = 1e-5
 # training kernels vs plain: the forward within 1e-5 absolute with f32
 # residuals (exact f32 FMAs in another order; ss_decode's ys too, since its
@@ -348,7 +366,10 @@ HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
 # transformer-30 at B = 16384 and 65,536, transformer-10s per row at 4096 at
 # its window 8 and at window 0, the shared tier at 4096) and the bf16 serve
 # kernel (row 1b: no context at B = 262,144, static context and the
-# lockstep serve kernel at 65,536) on the FMA units
+# lockstep serve kernel at 65,536) on the FMA units; the f32 serve kernel
+# (row 1: the same shapes and static C = 64 at 65,536), the decoder from
+# given states (row 3, B = 262,144) and the f32 peer context (B = 4096 and
+# 65,536) on the FMA units
 BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_decode_dw": 3.920,
           "ss_decode_dw_bf16": 3.777, "aligned_dec_dw": 20.739, "aligned_dec_dw_bf16": 20.681,
           "aligned_peer_dw": 20.808, "aligned_peer_dw_bf16": 21.833, "fused_encode_tokens_bf16": 19.151,
@@ -361,7 +382,9 @@ BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_dec
           "fused_ar_decode B=65536": 339.969, "fused_ar_decode transformer-10s": 137.884,
           "fused_ar_decode transformer-10s window 0": 279.593,
           "fused_ar_decode_shared": 129.154, "fused_serve_bf16": 92.864, "fused_serve_ctx_bf16": 72.126,
-          "fused_serve_peers_bf16": 245.214}
+          "fused_serve_peers_bf16": 245.214, "fused_serve": 72.896, "fused_serve_ctx": 53.519,
+          "fused_serve_ctx C=64": 50.467, "fused_serve_peers": 192.240, "fused_decode": 35.809, "peer_context": 14.098,
+          "peer_context B=65536": 219.967}
 DW_NAMES = [n for n in BEFORE if n.rsplit("_bf16", 1)[0].endswith("_dw")]
 # the cell kernel against lstm_cell: one step, exact f32 FMAs in another order
 # (tests/test_fused_lstm.py's bound for the TPU cell)
@@ -727,10 +750,28 @@ def family_fns(fam, **kw):
 # --------------------------------------------------------------- phase 3: kernels vs plain
 
 
-def check_serve(dev, batch, layers, ctx_dim, seed, t=30, cd=F32):
+def same_rows(name, out, run, batch, seed, what):
+    """``run(perm)``, the kernel on the batch's rows in ``perm``'s order
+    (None: as they are): a repeat bit-equal to ``out``, and every row of a
+    permuted batch bit-equal to its row in ``out`` (the batcher and the
+    gateway compare answers across batches)."""
+    perm = torch.randperm(batch, generator=torch.Generator().manual_seed(seed)).to(out.device)
+    if not torch.equal(out, run(None)):
+        raise AssertionError(f"{name}: a repeat is not bit-equal ({what})")
+    if not torch.equal(out[perm], run(perm)):
+        raise AssertionError(f"{name}: a row's answer depends on its place in the batch ({what})")
+
+
+def take(t, perm, dim=0):
+    """``t``'s rows in ``perm``'s order along ``dim`` (None: ``t``)."""
+    return t if t is None or perm is None else t.index_select(dim, perm).contiguous()
+
+
+def check_serve(dev, batch, layers, ctx_dim, seed, t=30, cd=F32, repeat=False):
     """fused_serve (with a static context when ctx_dim > 0) in the compute
     type ``cd`` against fused_serve_reference on the same inputs
-    (:func:`check_outputs`, kind "serve")."""
+    (:func:`check_outputs`, kind "serve"); ``repeat``: also a repeat and a
+    permuted batch (:func:`same_rows`)."""
     rng = np.random.default_rng(seed)
     enc, dec = stack(rng, dev, 3, layers), stack(rng, dev, 3 + ctx_dim, layers)
     pw, pb = randn(rng, dev, (128, 3), 0.1), randn(rng, dev, (3,), 0.1)
@@ -740,9 +781,28 @@ def check_serve(dev, batch, layers, ctx_dim, seed, t=30, cd=F32):
     args = (enc, dec, pw, pb, past_n, t)
     out = fused_lstm.fused_serve(*args, context=ctx, compute_dtype=cd)
     torch.cuda.synchronize()
+    if repeat:
+        same_rows("fused_serve", out, lambda perm: fused_lstm.fused_serve(
+            *args[:4], take(past_n, perm), t, context=take(ctx, perm), compute_dtype=cd), batch, seed,
+            f"B={batch}, L={layers}, C={ctx_dim}")
     return check_outputs("fused_serve_ctx" if ctx_dim else "fused_serve", [out],
                          plains(cd, lambda c: [fused_lstm.fused_serve_reference(*args, ctx, compute_dtype=c)]),
                          f"B={batch}, L={layers}, C={ctx_dim}", "serve", cd)
+
+
+@contextlib.contextmanager
+def f32_rows(rows):
+    """The f32 serve kernel, fused_decode and the f32 peer context in blocks
+    of ``rows`` rows (32: one row of warp tiles; the lockstep serve
+    kernel's 32 x 16 tiles in place of 64 x 8), their choosers' other
+    shape."""
+    serve, peer = fused_lstm.serve_tf32_rows, fused_lstm.peer_tf32_rows
+    fused_lstm.serve_tf32_rows = lambda *a, **kw: serve(*a, rows=rows, **kw)
+    fused_lstm.peer_tf32_rows = lambda *a, **kw: peer(*a, rows=rows, **kw)
+    try:
+        yield
+    finally:
+        fused_lstm.serve_tf32_rows, fused_lstm.peer_tf32_rows = serve, peer
 
 
 @contextlib.contextmanager
@@ -789,9 +849,10 @@ def check_cell(dev, batch, d_in, seed, cd=F32):
     return check_outputs("fused_lstm_cell", list(got), plains(cd, plain), f"B={batch}, D_in={d_in}", "cell", cd)
 
 
-def check_decode(dev, batch, layers, ctx_dim, seed, t=30):
+def check_decode(dev, batch, layers, ctx_dim, seed, t=30, repeat=False):
     """fused_decode against fused_decode_reference from random states →
-    max abs error."""
+    max abs error; ``repeat``: also a repeat and a permuted batch
+    (:func:`same_rows`)."""
     rng = np.random.default_rng(seed)
     dec = stack(rng, dev, 3 + ctx_dim, layers)
     pw, pb = randn(rng, dev, (128, 3), 0.1), randn(rng, dev, (3,), 0.1)
@@ -800,6 +861,10 @@ def check_decode(dev, batch, layers, ctx_dim, seed, t=30):
     ctx = randn(rng, dev, (batch, ctx_dim)) if ctx_dim else None
     out = fused_lstm.fused_decode(dec, pw, pb, h0, c0, y0, t, context=ctx)
     torch.cuda.synchronize()
+    if repeat:
+        same_rows("fused_decode", out, lambda perm: fused_lstm.fused_decode(
+            dec, pw, pb, take(h0, perm, 1), take(c0, perm, 1), take(y0, perm), t, context=take(ctx, perm)), batch,
+            seed, f"B={batch}, L={layers}, C={ctx_dim}")
     ref = fused_lstm.fused_decode_reference(dec, pw, pb, h0, c0, y0, t, ctx)
     if out.shape != (batch, t, 3) or not torch.isfinite(out).all():
         raise AssertionError(f"fused_decode output {tuple(out.shape)} not finite or misshapen")
@@ -1010,11 +1075,12 @@ def peer_inputs(rng, dev, past_n, k, t):
     return pxs, w
 
 
-def check_peer_serve(dev, batch, layers, k, seed, t=100, cd=F32):
+def check_peer_serve(dev, batch, layers, k, seed, t=100, cd=F32, repeat=False):
     """The lockstep tier (peer_context, then the serve kernel with the
     per-step context) in the compute type ``cd`` against its plain versions
-    with the same peers (:func:`check_outputs`: peer_context kind "encode",
-    the tier's output "serve") → {kernel: its reading}."""
+    with the same peers (:func:`check_outputs`: peer_context kind "ctx",
+    the tier's output "serve") → {kernel: its reading}; ``repeat``: also a
+    repeat and a permuted batch of both (:func:`same_rows`)."""
     rng = np.random.default_rng(seed)
     enc, dec, peer = stack(rng, dev, 3, layers), stack(rng, dev, 3 + 128, layers), stack(rng, dev, 3, 1)[0]
     pw, pb = randn(rng, dev, (128, 3), 0.1), randn(rng, dev, (3,), 0.1)
@@ -1028,6 +1094,12 @@ def check_peer_serve(dev, batch, layers, k, seed, t=100, cd=F32):
     what = f"B={batch}, L={layers}, K={k}"
     if out.shape != (batch, t, 3) or ctx[0].any():
         raise AssertionError(f"lockstep tier output misshapen or a masked row not zero ({what})")
+    if repeat:
+        same_rows("peer_context", ctx, lambda perm: fused_lstm.peer_context(
+            peer, take(pxs, perm), take(w, perm), compute_dtype=cd), batch, seed, what)
+        same_rows("fused_serve_peers", out, lambda perm: fused_lstm.fused_serve(
+            *args[:4], take(past_n, perm), t, compute_dtype=cd, peer_params=peer, peer_xs=take(pxs, perm),
+            peer_w=take(w, perm)), batch, seed, what)
     return {"peer_context": check_outputs(
                 "peer_context", [ctx], plains(cd, lambda c: [fused_lstm.peer_context_reference(peer, pxs, w, c)]),
                 what, "ctx", cd),
@@ -1227,6 +1299,21 @@ def check_all_kernels(dev):
     print(f"fused_decode vs plain, hidden 128, 30 steps: max_abs_err {json.dumps(errs)} (tolerance {KERNEL_TOL})",
           flush=True)
     errs = {}
+    for rows in (0, 32):  # the f32 bodies' blocks: the choosers' (64 rows) and 32-row ones
+        label = "32-row blocks" if rows else "chosen blocks"
+        with f32_rows(rows) if rows else contextlib.nullcontext():
+            for b, l, c in ((4099, 1, 0), (4099, 2, 128), (4099, 1, 12)):
+                errs[f"fused_serve B={b} L={l} C={c} {label}"] = check_serve(dev, b, l, c, seed=l + c + rows,
+                                                                             repeat=True)
+            for name, r in check_peer_serve(dev, 2053, 2, 7, seed=9 + rows, repeat=True).items():
+                errs[f"{name} B=2053 L=2 K=7 {label}"] = r
+            errs[f"fused_decode B=4099 L=2 C=128 {label}"] = check_decode(dev, 4099, 2, 128, seed=3 + rows,
+                                                                          repeat=True)
+    print(f"f32 tier on three-pass TF32 (the serve kernel at C = 0, 128 and 12, the last padded to a k8 step; "
+          f"fused_decode; the lockstep tier over 100+100 steps with its peer context) in the choosers' 64-row "
+          f"blocks and in 32-row ones, ragged batches, every repeat and every permuted batch bit-equal: max_abs_err "
+          f"{json.dumps(errs)} (tolerance: outputs {KERNEL_TOL}, peer_context {ENC_TOL})", flush=True)
+    errs = {}
     for b, l, c in ((4099, 1, 0), (16384, 1, 0), (4099, 2, 128), (4099, 2, 64)):
         errs[f"fused_serve B={b} L={l} C={c}"] = check_serve(dev, b, l, c, seed=l, cd=BF)
     for b, l in ((4 * 4099, 1), (4099, 2)):
@@ -1364,6 +1451,16 @@ def serve_flop(batch, t_in, t_out, enc_ins, dec_ins, hidden, d):
             + 2 * batch * t_out * hidden * d)
 
 
+def serve_work(flop, feedback_macs, cd):
+    """A serve kernel's work for bound(): in f32 its gate products in
+    three-pass TF32 at 495 / 3 TFLOP/s beside its feedback y = h·proj_w
+    (``feedback_macs`` MACs) on the FMA units; in bf16 all of it at the bf16
+    tensor-core peak, as row 1b's bound was first stated."""
+    if cd == BF:
+        return {BF16_FLOPS: flop}
+    return {TF32X3_FLOPS: flop - 2 * feedback_macs, F32_FLOPS: 2 * feedback_macs}
+
+
 def tier_reads(params, cd):
     """A stack's weights as the ``cd`` tier's kernels read them: W (and
     proj_w) in ``cd``, biases f32."""
@@ -1396,16 +1493,19 @@ def time_serve_kernel(name, dev, params, cfg, batch, iters, ctx_dim, smi, keep=T
     flop = serve_flop(batch, m.h_in, m.h_out, [m.d] + [m.hidden] * (m.layers - 1),
                       [m.d + ctx_dim] + [m.hidden] * (m.layers - 1), m.hidden, m.d)
     reads = [x_n, ctx] + tier_reads([params["proj"]["w"], params["proj"]["b"]] + [t for p in ps for t in p], cd)
-    peak = F32_FLOPS if cd == F32 else BF16_FLOPS
-    b_ms, b_by = bound(flop, reads, [out], peak)
+    work = serve_work(flop, batch * m.h_out * m.hidden * m.d, cd)
+    b_ms, b_by = bound(work, reads, [out])
+    t = {"ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    name += "_bf16" if cd == BF else ""
     if keep:
-        record(name + ("_bf16" if cd == BF else ""), ms, flop, reads, [out], peak)
+        TIMES[name] = t
     print(f"{name} alone (B={batch}, L={m.layers}, C={ctx_dim}, {str(cd)[6:]}; ms, CUDA events, {smi}): "
           f"{json.dumps(ms)}; bound {b_ms:.3f} ms by {b_by}; vs plain {json.dumps(err)}", flush=True)
-    if cd == BF and keep:
-        report_redesign(name + "_bf16", smi, no_library="none (AR decode with feedback)",
-                        fma_bound=bound(flop, reads, [out])[0],
-                        extra=f"; B={batch}, L={m.layers}, C={ctx_dim}; its f32 twin {ms['f32_kernel']:.4f} ms")
+    if keep or cd == F32:
+        report_redesign(name, smi, t=t, before=name if keep else f"{name} C={ctx_dim}",
+                        no_library="none (AR decode with feedback)", fma_bound=bound(flop, reads, [out])[0],
+                        extra=f"; B={batch}, L={m.layers}, C={ctx_dim}" + (
+                            f"; its f32 twin {ms['f32_kernel']:.4f} ms" if cd == BF else ""))
 
 
 # --------------------------------------------------------------- phase 4b: the cell and decode kernels
@@ -1522,11 +1622,13 @@ def time_cell_paths(dev, params, smi):
                    "kernel": lambda: fused_lstm.fused_decode(*args)}, {"plain": 1, "kernel": 3})
     flop = stack_flop(batch, t_out, [3], 128) + 2 * batch * t_out * 128 * 3
     reads = [h0, c0, y0, pw, pb] + [t for p in dec for t in p]
-    record("fused_decode", ms, flop, reads, [out])
+    record("fused_decode", ms, serve_work(flop, batch * t_out * 128 * 3, F32), reads, [out])
     t = TIMES["fused_decode"]
     print(f"fused_decode alone (B={batch}, L=1, {t_out} steps; ms, CUDA events, {smi}): {json.dumps(ms)}; bound "
           f"{t['bound_ms']:.3f} ms by {t['bound_by']}; max_abs_err vs plain {err:.3e} (tolerance {KERNEL_TOL}); "
           f"library: none (AR decode with feedback)", flush=True)
+    report_redesign("fused_decode", smi, no_library="none (AR decode with feedback)",
+                    fma_bound=bound(flop, reads, [out])[0], extra=f"; B={batch}, L=1, {t_out} steps from given states")
 
 
 def time_cell_kernel(dev, smi, d_in, keep, cd=F32, batch=16384):
@@ -2146,49 +2248,68 @@ def report_peer_bwd(builds):
 
 
 def report_lstm_mma(builds):
-    """The bf16 peer context, encoder and serve kernel (rows 1b, 4b;
-    lstm_mma.cuh's encoder and server) and the bf16 cell (row 2b,
-    lstm_mma.cuh's cell_step): their registers, spills and shared memory
-    (ptxas; the dynamic shared memory of the serving shapes' blocks, from
-    ops.fused_lstm's choosers) and the count of HMMA instructions in their
-    SASS; fails if one has none: their products run on mma.sync."""
+    """The LSTM kernels on the tensor cores (lstm_mma.cuh): the bf16 peer
+    context, encoder and serve kernel (rows 1b, 4b; encoder and server on
+    bf16 mma.sync), the bf16 cell (row 2b, cell_step), and the f32 peer
+    context and serve kernel (rows 1 and 3; encoder and server on three-pass
+    TF32): their registers, spills and shared memory (ptxas; the dynamic
+    shared memory of the serving shapes' blocks, from ops.fused_lstm's
+    choosers) and the count of HMMA instructions in their SASS; fails if one
+    has none: their products run on mma.sync."""
     sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
                            str(builds["fused_serve"].path)], capture_output=True, text=True, check=True).stdout
     hmma, fn = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
+            bf16 = "nv_bfloat16" in ln
             fn = next((k for k in ("peer_context_kernel", "fused_encode_kernel", "lstm_cell_kernel",
-                                   "fused_serve_kernel") if k in ln and "nv_bfloat16" in ln), None)
+                                   "fused_serve_kernel") if k in ln and (bf16 or k in ("peer_context_kernel",
+                                                                                       "fused_serve_kernel"))), None)
             if fn == "fused_serve_kernel":
                 fn += "<true>" if "ILb1E" in ln else "<false>"
             if fn:
+                fn += "<bf16>" if bf16 else "<f32>"
                 hmma[fn] = 0
         elif fn and "HMMA" in ln:
             hmma[fn] += 1
-    blocks = {"peer_context_kernel": fused_lstm.peer_tc_rows(128, 7, 3),
-              "fused_encode_kernel": fused_lstm.encode_tc_rows(128, 1, 3)}
+    blocks = {"peer_context_kernel<bf16>": fused_lstm.peer_tc_rows(128, 7, 3),
+              "fused_encode_kernel<bf16>": fused_lstm.encode_tc_rows(128, 1, 3),
+              "peer_context_kernel<f32>": fused_lstm.peer_tf32_rows(128, 7, 3)}
     for name, geo in blocks.items():
-        print(f"{name}<bf16>: {hmma.get(name, 0)} HMMA instructions in its SASS; "
-              f"{json.dumps(ptxas_resources('fused_serve', (name, 'nv_bfloat16')))}, {geo.smem} bytes of dynamic "
+        tier = "nv_bfloat16" if name.endswith("<bf16>") else "IfE"
+        print(f"{name}: {hmma.get(name, 0)} HMMA instructions in its SASS; "
+              f"{json.dumps(ptxas_resources('fused_serve', (name.split('<')[0], tier)))}, {geo.smem} bytes of dynamic "
               f"shared memory and {geo.warps} warps a block of {geo.rp} rows at the serving shape", flush=True)
     lib = fused_lstm.bind(ctypes.CDLL(str(builds["fused_serve"].path)))
-    print(f"lstm_cell_kernel<bf16>: {hmma.get('lstm_cell_kernel', 0)} HMMA instructions in its SASS; "
+    print(f"lstm_cell_kernel<bf16>: {hmma.get('lstm_cell_kernel<bf16>', 0)} HMMA instructions in its SASS; "
           f"{json.dumps(ptxas_resources('fused_serve', ('lstm_cell_kernel', 'nv_bfloat16')))}, "
           f"{json.dumps({d: lib.lstm_cell_smem_bytes(d, 128) for d in (3, 128)})} bytes of dynamic shared memory at "
           f"D_in = 3 and 128, 16 warps a block of {fused_lstm.cell_tc_rows(3, 128)} rows at H = 128", flush=True)
-    serving = {"seq2seq-tf-30": fused_lstm.serve_tc_rows(128, 1, 3),
-               "stacked-ss-crossuser": fused_lstm.serve_tc_rows(128, 2, 3, 128),
-               "stacked-ss-crossuser-10s": fused_lstm.serve_tc_rows(128, 2, 3, 128, True),
-               "video-fusion": fused_lstm.serve_tc_rows(128, 2, 3, 64)}
-    for step in ("false", "true"):
-        name = f"fused_serve_kernel<{step}>"
-        sym = ("fused_serve_kernel", "ILb1E" if step == "true" else "ILb0E", "nv_bfloat16")
-        print(f"{name}<bf16>: {hmma.get(name, 0)} HMMA instructions in its SASS; "
-              f"{json.dumps(ptxas_resources('fused_serve', sym))}; blocks at the serving shapes (rows, warps, W "
-              f"resident, c in shared memory, bytes of dynamic shared memory): "
-              f"{json.dumps({k: [g.rp, g.warps, g.w_res, g.c_smem, g.smem] for k, g in serving.items()})}", flush=True)
-    if len(hmma) != 5 or not all(hmma.values()):
-        raise AssertionError(f"a bf16 LSTM kernel has no HMMA instruction, its products off the tensor cores: {hmma}")
+    shapes = {"seq2seq-tf-30": (128, 1, 3, 0, False), "stacked-ss-crossuser": (128, 2, 3, 128, False),
+              "stacked-ss-crossuser-10s": (128, 2, 3, 128, True), "video-fusion": (128, 2, 3, 64, False)}
+    for tier, choose, smem_of in (("bf16", fused_lstm.serve_tc_rows, lib.fused_serve_smem_bytes),
+                                  ("f32", fused_lstm.serve_tf32_rows, lib.fused_serve_tf32_smem_bytes)):
+        serving = {k: choose(*shape) for k, shape in shapes.items()}
+        for k, g in serving.items():  # the library's accounting of each block is the chooser's
+            if smem_of(g.rp, 3, shapes[k][3], 128, shapes[k][1], int(g.w_res), int(g.c_smem), int(shapes[k][4])) != \
+                    g.smem:
+                raise AssertionError(f"the {tier} serve block at {k}: the library and the chooser disagree on its "
+                                     f"shared memory")
+        for step in ("false", "true"):
+            name = f"fused_serve_kernel<{step}><{tier}>"
+            sym = ("fused_serve_kernel", "ILb1E" if step == "true" else "ILb0E",
+                   "nv_bfloat16" if tier == "bf16" else "ILb" + ("1" if step == "true" else "0") + "EfE")
+            print(f"{name}: {hmma.get(name, 0)} HMMA instructions in its SASS; "
+                  f"{json.dumps(ptxas_resources('fused_serve', sym))}; blocks at the serving shapes (rows, warps, W "
+                  f"resident, c in shared memory, bytes of dynamic shared memory): "
+                  f"{json.dumps({k: [g.rp, g.warps, g.w_res, g.c_smem, g.smem] for k, g in serving.items()})}",
+                  flush=True)
+    geo = fused_lstm.peer_tf32_rows(128, 7, 3)
+    if lib.peer_context_smem_bytes(geo.rp, 63, 3, 128, 0, 1, 0) != geo.smem:
+        raise AssertionError("the f32 peer context's block: the library and the chooser disagree on its shared memory")
+    if len(hmma) != 8 or not all(hmma.values()):
+        raise AssertionError(f"an LSTM kernel on the tensor cores has no HMMA instruction, its products off them: "
+                             f"{hmma}")
 
 
 def report_decode_mma(builds):
@@ -2384,14 +2505,12 @@ def time_peer_serve(dev, params, cfg, batch, iters, smi, cd=F32):
     flop = serve_flop(batch, m.h_in, m.h_out, [m.d] + [m.hidden] * (m.layers - 1),
                       [m.d + m.ctx_dim] + [m.hidden] * (m.layers - 1), m.hidden, m.d)
     name = "fused_serve_peers" + ("_bf16" if cd == BF else "")
-    record(name, ms, flop, [x_n, ctx] + tier_reads([params["proj"]["w"], params["proj"]["b"]]
-                                                   + [t for p in ps for t in p], cd), [out],
-           F32_FLOPS if cd == F32 else BF16_FLOPS)
+    reads = [x_n, ctx] + tier_reads([params["proj"]["w"], params["proj"]["b"]] + [t for p in ps for t in p], cd)
+    record(name, ms, serve_work(flop, batch * m.h_out * m.hidden * m.d, cd), reads, [out])
     tier_flop = flop + stack_flop(batch * cfg.n_other_users, m.h_out, [m.d], m.ctx_dim)
-    if cd == BF:
-        report_redesign(name, smi, no_library="none (AR decode with feedback)",
-                        fma_bound=bound(flop, [x_n, ctx], [out])[0],
-                        extra=f"; the lockstep serve kernel, B={batch}, its f32 twin {ms['f32_kernel']:.4f} ms")
+    report_redesign(name, smi, no_library="none (AR decode with feedback)", fma_bound=bound(flop, reads, [out])[0],
+                    extra=f"; the lockstep serve kernel, B={batch}" + (
+                        f", its f32 twin {ms['f32_kernel']:.4f} ms" if cd == BF else ""))
     print(f"lockstep fused_serve tier alone (B={batch}, L={m.layers}, K={cfg.n_other_users}, "
           f"{m.h_in}+{m.h_out} steps, {str(cd)[6:]}; ms, CUDA events, {smi}): whole tier {json.dumps(tier)} "
           f"({tier_flop / tier['kernel'] / 1e9:.1f} TFLOP/s); the serve kernel with the per-step context "
@@ -2427,15 +2546,18 @@ def time_peer_context(dev, peer, batch, k, t, smi, with_library, cd=F32):
     ms = in_turns(fns, {"plain": 1, "kernel": 3, "library": 3, "f32_kernel": 3})
     rows = batch * k
     name = "peer_context" + ("_bf16" if cd == BF else "")
+    # the products on the tensor cores (bf16, or three-pass TF32), the context sum on the FMA units
     flop, reads = stack_flop(rows, t, [3], 128) + 2 * rows * t * 128, [pxs, w] + tier_reads(peer, cd)
-    record(name, ms, flop, reads, [out], F32_FLOPS if cd == F32 else BF16_FLOPS)
+    work = {BF16_FLOPS: flop} if cd == BF else {TF32X3_FLOPS: stack_flop(rows, t, [3], 128),
+                                                F32_FLOPS: 2 * rows * t * 128}
+    record(name, ms, work, reads, [out])
     print(f"{name} alone (B={batch}, K={k}: {rows} peer rows, T={t}; ms, CUDA events, library cuDNN "
           f"nn.LSTM over the peer rows, {smi}): {json.dumps(ms)}; bound {TIMES[name]['bound_ms']:.3f} "
           f"ms by {TIMES[name]['bound_by']}; vs plain {json.dumps(err)}", flush=True)
-    if cd == BF:  # row 1b on the tensor cores (lstm_mma.cuh)
-        report_redesign(name, smi, before=name if with_library else f"{name} B={batch}",
-                        fma_bound=bound(flop, reads, [out])[0], no_library="cuDNN not run at this batch",
-                        extra=f" (B={batch}); its f32 twin {ms['f32_kernel']:.4f} ms")
+    # rows 1 and 1b on the tensor cores (lstm_mma.cuh)
+    report_redesign(name, smi, before=name if with_library else f"{name} B={batch}",
+                    fma_bound=bound(flop, reads, [out])[0], no_library="cuDNN not run at this batch",
+                    extra=f" (B={batch})" + (f"; its f32 twin {ms['f32_kernel']:.4f} ms" if cd == BF else ""))
 
 
 # --------------------------------------------------------------- stacked-ss-crossuser training

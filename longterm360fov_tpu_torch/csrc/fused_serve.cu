@@ -16,14 +16,13 @@
 // the same encoder phase over xs (B, T, D), returning only the final
 // top-layer h (B, H). Nothing is saved per step (the peer encoder of the
 // cross_user family at serving time: B·K rows).
-// fused_serve_kernel<false> given states also replaces
+// fused_serve_kernel<false, float> given states also replaces
 //   longterm360fov_tpu/ops/fused_lstm.py::fused_decode / _decode_kernel:
 // the decoder phase alone, started from given h0, c0 (L, B, H) and y0
 // (B, D), with an optional static context (seq2seq.decode_fused). The same
 // instance runs it, so the decoder loop is the serve kernel's, registers
-// and all (a kernel of its own compiled the same device code with 197
-// registers against 248 and ran 2.4x slower); the only new code loads the
-// states, c into the owner-private slots of lstm_layer_step.
+// and all; the only new code loads the states, h0 into z and c0 into the
+// lanes' slots of every warp tile.
 // lstm_cell_kernel<ST> replaces
 //   longterm360fov_tpu/ops/fused_lstm.py::fused_lstm_cell / _cell_kernel:
 // one layer-step of B rows, x, h, c, W and b stored in ST (f32, or bf16 on a
@@ -43,17 +42,23 @@
 // What bounds them on the card:
 //   * Arithmetic. Every layer-step is a (R x in+H) @ (in+H x 4H) product:
 //     2.1 TFLOP per serve call at B = 262144, D = 3, H = 128, 30 + 30 steps,
-//     L = 1. In exact f32 (no TF32, no fast math) that runs on the FMA units,
-//     whose peak is 67 TFLOP/s. The static context adds C k-rows to the
-//     decoder's layer 0 (C = 128: 1.5x the decoder's layer-0 work).
-//   * Weight traffic. One layer's W is (3 + 128) x 512 x 4 = 268 KB, more
-//     than the 227 KB of shared memory a block can have, so W is read from
-//     global memory every step. All blocks read the same matrices, so W stays
-//     in L2. At R = 64 rows per block every W byte brought from L2 feeds
-//     32 FLOP, about 66 GB of L2 reads per call at B = 262144: far below
-//     what L2 delivers in the time the FMAs take.
-//   * The recurrence. The steps are serial inside a block.
-// What the design does about it:
+//     L = 1. In exact f32 on the FMA units (67 TFLOP/s) that is 31.6 ms;
+//     the static context adds C k-rows to the decoder's layer 0 (C = 128:
+//     1.5x the decoder's layer-0 work).
+//   * Weight traffic. One layer's W is (3 + 128) x 512 x 4 = 268 KB in f32,
+//     more than the 227 KB of shared memory a block can have, so W is read
+//     from L2 every layer-step.
+//   * The cell's exact f32 sigmoids and tanhs, and the recurrence: the
+//     steps are serial inside a block.
+// What the design does about it: the serve kernel and the peer context run
+// on the tensor cores in both tiers (lstm_mma.cuh's server and encoder):
+// the bf16 tier on bf16 mma.sync, the f32 tier in three-pass TF32, which
+// keeps 22 bits an operand and sums in f32, at 495 / 3 TFLOP/s instead of
+// the FMA units' 67. A warp tile holds all four gates of its (row, unit)
+// pairs, so the cell runs on the accumulators in registers; c stays in the
+// lanes' slots through both phases; z, a block row of [x or y | ctx | h of
+// every layer], is the products' A in shared memory. fused_encode_kernel
+// <float> and lstm_cell_kernel<float> stay on the FMA units (below):
 //   * Each thread owns TR = 8 rows x TJ = 4 hidden units and computes all four
 //     gates of them: 128 accumulators in registers. Per k it loads one float4
 //     of W per gate (16-byte coalesced loads; each W element is reused for 8
@@ -64,10 +69,7 @@
 //     sits in shared memory that only its owner thread touches.
 //   * h of every layer sits in shared memory, k-major (H, R), so the product
 //     reads it as [x, h] without a concat; it is overwritten in place after a
-//     barrier. The decoder's layer-0 input [y, ctx] is one k-major (D + C, R)
-//     buffer: ctx is loaded once, y rewritten every step. Between steps
-//     nothing goes to device memory except W reads, x_t in and y_t out. Rows
-//     are independent, so blocks share nothing.
+//     barrier. Rows are independent, so blocks share nothing.
 // The lockstep-peer tier (preset stacked-ss-crossuser-10s): at decoder step
 // t, K peer LSTM cells (hidden C, from zero state) advance one step on the
 // peers' known future windows, and ctx_t = Σ_k w_k · h_k,t is step t's
@@ -80,12 +82,11 @@
 //     fused_encode way (a block holds all K peers of RV viewers, so the
 //     masked mean is a block-local sum in a fixed order) and writes ctx_t
 //     (B, T_out, C) f32 for every step: 3.4 GB at B = 65536, about 2 ms of
-//     device-memory traffic written and read, against about 180 ms of FMA
-//     work in the call;
-//   * fused_serve_kernel<true> reloads ctx_t into the k-major [y, ctx]
-//     buffer at the start of every decoder step instead of once. The
-//     per-step load is a template parameter, so the static tier's instance
-//     keeps its registers.
+//     device-memory traffic written and read;
+//   * fused_serve_kernel<true> copies ctx_t+1 into z's context columns
+//     during step t's products (cp.async) instead of once. The per-step
+//     load is a template parameter, so the static tier's instance keeps its
+//     registers.
 // The bf16 compute tier (compute_dtype=bfloat16) is the compute type CT of
 // compute_type.cuh, a template parameter of every kernel but the cell's:
 //   * W and proj_w are read as bf16, rounded once per call by the wrapper;
@@ -237,61 +238,6 @@ __device__ __forceinline__ void encode(const float* __restrict__ xs,
   }
 }
 
-// The T_out-step autoregressive decoder for the block's R rows, from the
-// (h, c) of every layer in h_s and c_s and the first input y0 in x_s[0:D]:
-// per step the L layers on [y, ctx], then y = h_top @ proj_w + proj_b,
-// written to out (B, T_out, D) and fed back. STEP_CTX = false: no context
-// (C = 0) or a static context ctx (B, C), written into the decoder's layer-0
-// buffer once. STEP_CTX = true: the lockstep-peer tier's per-step context
-// ctx (B, T_out, C), reloaded every decoder step. A template parameter, so
-// that the static tier's instance keeps its registers.
-template <bool STEP_CTX>
-__device__ __forceinline__ void decode(const float* __restrict__ ctx,
-                                       float* __restrict__ out,
-                                       const Weights<float>& wts, float* h_s,
-                                       float* c_s, float* x_s, long long row0,
-                                       int B, int T_out, int D, int C, int H,
-                                       int L, int R, int r0, int j0, int tid,
-                                       int nthr) {
-  const int HR = H * R;
-  if constexpr (!STEP_CTX) {
-    for (int i = tid; i < R * C; i += nthr) {
-      const int r = i / C, k = i % C;
-      const long long row = row0 + r;
-      x_s[(D + k) * R + r] = row < B ? ctx[row * C + k] : 0.0f;
-    }
-    __syncthreads();
-  }
-  const float* h_top = h_s + (L - 1) * HR;
-  for (int t = 0; t < T_out; ++t) {
-    if constexpr (STEP_CTX) {  // this step's context; x_s was last read
-      for (int i = tid; i < R * C; i += nthr) {  // before the previous barrier
-        const int r = i / C, k = i % C;
-        const long long row = row0 + r;
-        x_s[(D + k) * R + r] = row < B ? ctx[((size_t)row * T_out + t) * C + k] : 0.0f;
-      }
-      __syncthreads();
-    }
-    for (int l = 0; l < L; ++l)
-      lstm_layer_step(l == 0 ? x_s : h_s + (l - 1) * HR, l == 0 ? D + C : H,
-                      h_s + l * HR, c_s + l * HR, wts.w_dec[l], wts.b_dec[l],
-                      H, R, r0, j0, tid, nthr);
-    // y = h_top @ proj_w + proj_b becomes the next step's layer-0 input;
-    // layer 0 of this step read x_s before its first barrier
-    for (int i = tid; i < R * D; i += nthr) {
-      const int r = i / D, d = i % D;
-      float y = 0.0f;
-      for (int k = 0; k < H; ++k)
-        y = fmaf(h_top[k * R + r], ldw1(wts.proj_w + k * D + d), y);
-      y += __ldg(wts.proj_b + d);
-      x_s[d * R + r] = y;
-      const long long row = row0 + r;
-      if (row < B) out[(row * T_out + t) * D + d] = y;
-    }
-    __syncthreads();
-  }
-}
-
 // src (B, H) row-major → dst (H, R) k-major for the block's rows; 0 past
 // the batch end.
 __device__ __forceinline__ void load_rows_kmajor(float* dst,
@@ -335,58 +281,40 @@ __device__ __forceinline__ void store_c(float* __restrict__ dst, const float* c,
 }
 
 // h0 == nullptr: the serve kernel, the encoder over past (B, T_in, D) from
-// zero state, then the decoder. h0, c0 (L, B, H) given: the decode kernel
-// (fused_decode), the decoder alone from those states, with past = y0 as
-// (B, 1, D). One instance for both, so that the decoder loop is compiled
-// once, with the serve kernel's registers. The bf16 tier is lstm_mma.cuh's
-// server (every layer's W of a phase packed in w_enc[0], w_dec[0]; the
-// block's shape in geo), which takes no given states.
+// zero state, then the decoder. h0, c0 (L, B, H) given (the f32 tier only):
+// the decode kernel (fused_decode), the decoder alone from those states,
+// with past = y0 as (B, 1, D). Both tiers are lstm_mma.cuh's server (every
+// layer's W of a phase packed in w_enc[0], w_dec[0]; the block's shape in
+// geo): the f32 tier on three-pass TF32 in 64- or 32-row tiles (geo.mt 4
+// or 2) of 8 warps with STEP_CTX, else 32 x 8 tiles (2) of 16 warps
+// (lstm_mma.cuh's BodyTile), the bf16 tier on bf16 mma in 32- or 16-row
+// tiles (2 or 1).
 template <bool STEP_CTX, typename CT>
-__global__ void __launch_bounds__(std::is_same<CT, float>::value ? 256 : 512)
-    fused_serve_kernel(const float* __restrict__ past,
-                       const float* __restrict__ ctx, float* __restrict__ out,
-                       const Weights<CT> wts, int B, int T_in, int T_out, int D,
-                       int C, int H, int L, int R,
-                       const float* __restrict__ h0,
-                       const float* __restrict__ c0, const lstm_mma::Geom geo) {
-  if constexpr (!std::is_same<CT, float>::value) {
-    const uint4* we = reinterpret_cast<const uint4*>(wts.w_enc[0]);
-    const uint4* wd = reinterpret_cast<const uint4*>(wts.w_dec[0]);
-    if (geo.mt == 2)
-      lstm_mma::server<2, STEP_CTX>(past, ctx, out, we, wd, wts.b_enc, wts.b_dec, wts.proj_w, wts.proj_b, B, T_in,
-                                    T_out, D, C, H, L, geo);
+__global__ void __launch_bounds__(std::is_same<CT, float>::value && STEP_CTX ? 256 : 512)
+    fused_serve_kernel(const float* __restrict__ past, const float* __restrict__ ctx, float* __restrict__ out,
+                       const Weights<CT> wts, int B, int T_in, int T_out, int D, int C, int H, int L,
+                       const float* __restrict__ h0, const float* __restrict__ c0, const lstm_mma::Geom geo) {
+  const uint4* we = reinterpret_cast<const uint4*>(wts.w_enc[0]);
+  const uint4* wd = reinterpret_cast<const uint4*>(wts.w_dec[0]);
+  if constexpr (std::is_same<CT, float>::value && STEP_CTX) {
+    using P = lstm_mma::Tf32Mma;
+    if (geo.mt == 4)
+      lstm_mma::server<P, 4, true>(past, ctx, out, we, wd, wts.b_enc, wts.b_dec, wts.proj_w, wts.proj_b, B, T_in,
+                                   T_out, D, C, H, L, geo, h0, c0);
     else
-      lstm_mma::server<1, STEP_CTX>(past, ctx, out, we, wd, wts.b_enc, wts.b_dec, wts.proj_w, wts.proj_b, B, T_in,
-                                    T_out, D, C, H, L, geo);
+      lstm_mma::server<P, 2, true>(past, ctx, out, we, wd, wts.b_enc, wts.b_dec, wts.proj_w, wts.proj_b, B, T_in,
+                                   T_out, D, C, H, L, geo, h0, c0);
+  } else if constexpr (std::is_same<CT, float>::value) {
+    lstm_mma::server<lstm_mma::Tf32Mma, 2, false>(past, ctx, out, we, wd, wts.b_enc, wts.b_dec, wts.proj_w,
+                                                  wts.proj_b, B, T_in, T_out, D, C, H, L, geo, h0, c0);
   } else {
-    extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    const int tid = threadIdx.x, nthr = blockDim.x;
-    const int j0 = (tid % (H / TJ)) * TJ;
-    const int r0 = (tid / (H / TJ)) * TR;
-    const int HR = H * R;
-    float* h_s = smem;           // L x (H, R)
-    float* c_s = h_s + L * HR;   // L x (TR * TJ, nthr): the same H * R floats
-    float* x_s = c_s + L * HR;   // (D + C, R) layer-0 input: x_t, then [y, ctx]
-    const long long row0 = (long long)blockIdx.x * R;
-
-    if (h0 == nullptr) {
-      encode(past, wts.w_enc, wts.b_enc, h_s, c_s, x_s, row0, B, T_in, D, H, L,
-             R, r0, j0, tid, nthr);
-    } else {
-      for (int l = 0; l < L; ++l) {
-        load_rows_kmajor(h_s + l * HR, h0 + (size_t)l * B * H, row0, B, H, R,
-                         tid, nthr);
-        load_c(c_s + l * HR, c0 + (size_t)l * B * H, row0, B, H, r0, j0, tid,
-               nthr);
-      }
-      load_step(x_s, past, row0, B, T_in, T_in - 1, D, R, tid, nthr);
-      __syncthreads();
-    }
-    // the decoder starts from the final (h, c) of every layer, which stay
-    // where they are, and from the last observed position (x_s holds it)
-    decode<STEP_CTX>(ctx, out, wts, h_s, c_s, x_s, row0, B, T_out, D, C, H, L,
-                     R, r0, j0, tid, nthr);
+    using P = lstm_mma::Bf16Mma;
+    if (geo.mt == 2)
+      lstm_mma::server<P, 2, STEP_CTX>(past, ctx, out, we, wd, wts.b_enc, wts.b_dec, wts.proj_w, wts.proj_b, B, T_in,
+                                       T_out, D, C, H, L, geo);
+    else
+      lstm_mma::server<P, 1, STEP_CTX>(past, ctx, out, we, wd, wts.b_enc, wts.b_dec, wts.proj_w, wts.proj_b, B, T_in,
+                                       T_out, D, C, H, L, geo);
   }
 }
 
@@ -432,56 +360,29 @@ __global__ void __launch_bounds__(std::is_same<ST, float>::value ? 256 : lstm_mm
 }
 
 // The lockstep peer encoders of the serve tier: one LSTM cell of hidden C
-// (wts.w_enc[0] (D + C, 4C), from zero state) over the B·K peer rows of pxs
-// (B·K, T, D), peer row p = b·K + k. A block holds all K peers of RV viewers
-// (R = RV·K rows, contiguous from b0·K), so after every step
-// ctx_t[b] = Σ_k pwt[b, k] · h_k,t (k = 0 .. K - 1 in order, from the f32 h,
-// unrounded in the bf16 tier too) is a block-local sum; it is written to ctx
-// (B, T, C) in f32. The bf16 tier is lstm_mma.cuh's encoder (wts.w_enc[0]
-// packed, the block's shape in geo); the f32 tier's body follows.
+// (wts.w_enc[0] (D + C, 4C) packed, from zero state) over the B·K peer rows
+// of pxs (B·K, T, D), peer row p = b·K + k. A block holds all K peers of RV
+// viewers (R = RV·K rows, contiguous from b0·K, padded to whole tiles), so
+// after every step ctx_t[b] = Σ_k pwt[b, k] · h_k,t (k = 0 .. K - 1 in
+// order, from the f32 h, unrounded in the bf16 tier too) is a block-local
+// sum; it is written to ctx (B, T, C) in f32. Both tiers are lstm_mma.cuh's
+// encoder (the block's shape in geo): f32 on three-pass TF32 in 32 x 8
+// tiles, bf16 on bf16 mma in 32- or 16-row tiles; 16 warps.
 template <typename CT>
-__global__ void __launch_bounds__(std::is_same<CT, float>::value ? 256 : 512)
-    peer_context_kernel(const float* __restrict__ pxs,
-                        const float* __restrict__ pwt, float* __restrict__ ctx,
-                        const Weights<CT> wts, int B, int K, int T, int D, int C,
-                        int RV, const lstm_mma::Geom geo) {
-  if constexpr (!std::is_same<CT, float>::value) {
-    const uint4* w = reinterpret_cast<const uint4*>(wts.w_enc[0]);
-    const long long p0 = (long long)blockIdx.x * RV * K;
-    if (geo.mt == 2)
-      lstm_mma::encoder<2, true>(pxs, pwt, ctx, w, wts.b_enc, p0, B * K, RV * K, T, D, C, 1, K, RV, B, geo);
-    else
-      lstm_mma::encoder<1, true>(pxs, pwt, ctx, w, wts.b_enc, p0, B * K, RV * K, T, D, C, 1, K, RV, B, geo);
+__global__ void __launch_bounds__(512)
+    peer_context_kernel(const float* __restrict__ pxs, const float* __restrict__ pwt, float* __restrict__ ctx,
+                        const Weights<CT> wts, int B, int K, int T, int D, int C, int RV, const lstm_mma::Geom geo) {
+  const uint4* w = reinterpret_cast<const uint4*>(wts.w_enc[0]);
+  const long long p0 = (long long)blockIdx.x * RV * K;
+  if constexpr (std::is_same<CT, float>::value) {
+    lstm_mma::encoder<lstm_mma::Tf32Mma, 2, true>(pxs, pwt, ctx, w, wts.b_enc, p0, B * K, RV * K, T, D, C, 1, K, RV,
+                                                  B, geo);
   } else {
-    extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    const int tid = threadIdx.x, nthr = blockDim.x;
-    const int R = RV * K, P = B * K;
-    const int j0 = (tid % (C / TJ)) * TJ;
-    const int r0 = (tid / (C / TJ)) * TR;
-    float* h_s = smem;         // (C, R)
-    float* c_s = h_s + C * R;  // (TR * TJ, nthr)
-    float* x_s = c_s + C * R;  // (D, R)
-    float* w_s = x_s + D * R;  // (R,) pwt of the block's peer rows
-    const long long b0 = (long long)blockIdx.x * RV, row0 = b0 * K;
-
-    for (int i = tid; i < 2 * C * R; i += nthr) h_s[i] = 0.0f;  // h_s, c_s
-    for (int r = tid; r < R; r += nthr) w_s[r] = row0 + r < P ? pwt[row0 + r] : 0.0f;
-    for (int t = 0; t < T; ++t) {
-      load_step(x_s, pxs, row0, P, T, t, D, R, tid, nthr);
-      __syncthreads();
-      lstm_layer_step(x_s, D, h_s, c_s, wts.w_enc[0], wts.b_enc[0], C, R, r0, j0,
-                      tid, nthr);
-      // the next step rewrites h only after its first barrier
-      for (int i = tid; i < RV * C; i += nthr) {
-        const int v = i / C, c = i % C;
-        const long long b = b0 + v;
-        if (b >= B) continue;
-        float s = 0.0f;
-        for (int k = 0; k < K; ++k) s += h_s[c * R + v * K + k] * w_s[v * K + k];
-        ctx[((size_t)b * T + t) * C + c] = s;
-      }
-    }
+    using P = lstm_mma::Bf16Mma;
+    if (geo.mt == 2)
+      lstm_mma::encoder<P, 2, true>(pxs, pwt, ctx, w, wts.b_enc, p0, B * K, RV * K, T, D, C, 1, K, RV, B, geo);
+    else
+      lstm_mma::encoder<P, 1, true>(pxs, pwt, ctx, w, wts.b_enc, p0, B * K, RV * K, T, D, C, 1, K, RV, B, geo);
   }
 }
 
@@ -497,9 +398,11 @@ __global__ void __launch_bounds__(std::is_same<CT, float>::value ? 256 : 512)
     const uint4* w = reinterpret_cast<const uint4*>(wts.w_enc[0]);
     const long long p0 = (long long)blockIdx.x * geo.rp;
     if (geo.mt == 2)
-      lstm_mma::encoder<2, false>(xs, nullptr, out, w, wts.b_enc, p0, B, geo.rp, T, D, H, L, 1, 1, B, geo);
+      lstm_mma::encoder<lstm_mma::Bf16Mma, 2, false>(xs, nullptr, out, w, wts.b_enc, p0, B, geo.rp, T, D, H, L, 1,
+                                                     1, B, geo);
     else
-      lstm_mma::encoder<1, false>(xs, nullptr, out, w, wts.b_enc, p0, B, geo.rp, T, D, H, L, 1, 1, B, geo);
+      lstm_mma::encoder<lstm_mma::Bf16Mma, 1, false>(xs, nullptr, out, w, wts.b_enc, p0, B, geo.rp, T, D, H, L, 1,
+                                                     1, B, geo);
   } else {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
@@ -550,16 +453,31 @@ static Weights<CT> weights(const void* const* w_enc, const void* const* b_enc,
   return w;
 }
 
-// The dynamic shared memory of a bf16 encoder block (lstm_mma.cuh): rp rows
-// in tiles of 16·mt, `rows` of them real, `warps` warps, W resident (w_res)
-// or streamed, c in shared memory (c_glob null) or in c_glob; -1 for a shape
+// A block's tiles of the tier P (lstm_mma.cuh's BodyTile): 32- or 16-row
+// tiles (mt 2 or 1) of up to 16 warps in bf16, W resident or streamed; in
+// f32 W streamed (product_tf32 reads it through the read-only path), the
+// lockstep serve kernel (step_ctx) in 64- or 32-row tiles (mt 4 or 2) of
+// up to 8 warps, the others in 32-row tiles of up to 16
+template <typename P>
+static bool takes_block(int rp, int mt, int warps, int w_res, bool step_ctx) {
+  const bool f32 = std::is_same<P, lstm_mma::Tf32Mma>::value;
+  const bool tiles = f32 ? !w_res && (step_ctx ? (mt == 4 || mt == 2) && warps <= 8 : mt == 2)
+                         : mt == 2 || mt == 1;
+  return tiles && rp >= 16 * mt && rp % (16 * mt) == 0 && warps >= 1 && warps <= 16;
+}
+
+// The dynamic shared memory of an encoder block of the tier P (lstm_mma.cuh):
+// rp rows, `rows` of them real, `warps` warps, W resident (w_res) or
+// streamed, c in shared memory (c_glob null) or in c_glob; -1 for a shape
 // the kernels do not take.
+template <typename P>
 static long long mma_smem(bool peer, int rp, int rows, int d, int hidden, int layers, int mt, int warps,
                           int w_res, const void* c_glob) {
-  if ((mt != 1 && mt != 2) || rp < 16 * mt || rp % (16 * mt) || rows < 1 || rows > rp || warps < 1 ||
-      warps > 16 || hidden < 32 || hidden % 32 || d < 1 || layers < 1 || layers > MAX_LAYERS)
+  if (!takes_block<P>(rp, mt, warps, w_res, false) || rows < 1 || rows > rp || hidden < 32 || hidden % 32 || d < 1 ||
+      layers < 1 ||
+      layers > MAX_LAYERS)
     return -1;
-  const long long s = lstm_mma::smem_bytes(peer, rp, rows, d, hidden, layers, w_res, c_glob == nullptr);
+  const long long s = lstm_mma::smem_bytes<P>(peer, rp, rows, d, hidden, layers, w_res, c_glob == nullptr);
   return s > lstm_mma::SMEM_LIMIT ? -1 : s;
 }
 
@@ -574,57 +492,61 @@ static int launch(Kernel kernel, int grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// The f32 serve kernel of the tier (STEP_CTX: the lockstep tier's per-step
-// context), or the decode kernel where h0, c0 are given.
-template <bool STEP_CTX>
-static int launch_serve(const void* past, const void* ctx, void* out,
-                        const Weights<float>& w, int batch, int t_in, int t_out,
-                        int d, int ctx_dim, int hidden, int layers, int rows,
-                        const void* h0, const void* c0, void* stream) {
-  const size_t smem =
-      ((size_t)2 * layers * hidden + d + ctx_dim) * rows * sizeof(float);
-  return launch(fused_serve_kernel<STEP_CTX, float>, (batch + rows - 1) / rows,
-                (rows / TR) * (hidden / TJ), smem, stream,
-                static_cast<const float*>(past), static_cast<const float*>(ctx),
-                static_cast<float*>(out), w, batch, t_in, t_out, d, ctx_dim,
-                hidden, layers, rows, static_cast<const float*>(h0),
-                static_cast<const float*>(c0), lstm_mma::Geom{});
-}
-
-// The dynamic shared memory of a bf16 serve block (lstm_mma.cuh's server):
-// rp rows in tiles of 16·mt, `warps` warps, W resident (w_res) or streamed,
-// c in shared memory (c_glob null) or in c_glob; -1 for a shape it does
-// not take.
+// The dynamic shared memory of a serve block of the tier P (lstm_mma.cuh's
+// server): rp rows, `warps` warps, W resident (w_res) or streamed, c in
+// shared memory (c_glob null) or in c_glob; -1 for a shape it does not take
+// (the context in whole k16 steps in bf16, whole 16-byte pieces in f32).
+template <typename P>
 static long long serve_mma_smem(int rp, int d, int ctx_dim, int hidden, int layers, int mt, int warps, int w_res,
                                 const void* c_glob, bool step_ctx) {
-  if ((mt != 1 && mt != 2) || rp < 16 * mt || rp % (16 * mt) || warps < 1 || warps > 16 || hidden < 32 ||
-      hidden % 32 || d < 1 || d > lstm_mma::SERVE_MAX_D || ctx_dim < 0 || ctx_dim % 16 || layers < 1 ||
-      layers > MAX_LAYERS)
+  const int ctx_step = std::is_same<P, lstm_mma::Bf16Mma>::value ? 16 : 4;
+  if (!takes_block<P>(rp, mt, warps, w_res, step_ctx) || hidden < 32 || hidden % 32 || d < 1 ||
+      d > lstm_mma::SERVE_MAX_D ||
+      ctx_dim < 0 || ctx_dim % ctx_step || layers < 1 || layers > MAX_LAYERS)
     return -1;
   const long long s =
-      lstm_mma::serve_smem_bytes(rp, d, ctx_dim, hidden, layers, w_res, c_glob == nullptr, step_ctx);
+      lstm_mma::serve_smem_bytes<P>(rp, d, ctx_dim, hidden, layers, w_res, c_glob == nullptr, step_ctx);
   return s > lstm_mma::SMEM_LIMIT ? -1 : s;
+}
+
+// Launch the serve kernel of the tier CT at a block shape that
+// serve_mma_smem takes; h0, c0 given: the decoder alone (f32).
+template <typename CT>
+static int launch_serve(const void* past, const void* ctx, void* out, const Weights<CT>& wts, int batch, int t_in,
+                        int t_out, int d, int ctx_dim, int hidden, int layers, int rows, int step_ctx, int mt,
+                        int warps, int w_res, void* c_glob, const void* h0, const void* c0, void* stream) {
+  using P = std::conditional_t<std::is_same<CT, float>::value, lstm_mma::Tf32Mma, lstm_mma::Bf16Mma>;
+  const long long smem = serve_mma_smem<P>(rows, d, ctx_dim, hidden, layers, mt, warps, w_res, c_glob, step_ctx);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  const lstm_mma::Geom geo{rows, mt, w_res, static_cast<float*>(c_glob)};
+#define SERVE(STEP)                                                                                            \
+  launch(fused_serve_kernel<STEP, CT>, (batch + rows - 1) / rows, 32 * warps, (size_t)smem, stream,             \
+         static_cast<const float*>(past), static_cast<const float*>(ctx), static_cast<float*>(out), wts, batch,  \
+         t_in, t_out, d, ctx_dim, hidden, layers, static_cast<const float*>(h0), static_cast<const float*>(c0), \
+         geo)
+  return step_ctx ? SERVE(true) : SERVE(false);
+#undef SERVE
 }
 
 extern "C" {
 
 // Each function launches its kernel on `stream` and returns
 // cudaGetLastError() (0 = ok). The pointer arrays hold `layers` device
-// pointers each; `rows` is the batch rows per block (a multiple of TR), so
-// the block has (rows / TR) * (hidden / TJ) threads. With `bf16` set, the
-// weight matrices (W, proj_w) are bf16 and the products run in the bf16
-// compute tier; biases, activations and outputs are f32 in both tiers.
+// pointers each; `rows` is the batch rows per block (for the FMA bodies of
+// the f32 encoder and cell a multiple of TR, so the block has (rows / TR) *
+// (hidden / TJ) threads). With `bf16` set, the weight matrices (W, proj_w)
+// are bf16 and the products run in the bf16 compute tier; biases,
+// activations and outputs are f32 in both tiers.
 
 // ctx is null when ctx_dim == 0; the decoder's layer-0 W is then (d +
 // hidden, 4 * hidden), else (d + ctx_dim + hidden, 4 * hidden). ctx is
 // (batch, ctx_dim), or, with step_ctx, (batch, t_out, ctx_dim): the
-// lockstep-peer tier's per-step context. f32: `rows` rows a block (a
-// multiple of 8), (2 * layers * hidden + d + ctx_dim) * rows floats of
-// dynamic shared memory. bf16: w_enc[0] and w_dec[0] every layer's W of the
-// phase packed in one array (ops/fused_lstm.py pack_weights), `rows` = rp
-// rows a block in tiles of 16·mt, `warps` warps, W resident (w_res) or
-// streamed, c in shared memory or in c_glob (grid x layers x rp x hidden
-// floats; lstm_mma.cuh's server); ctx_dim % 16 == 0, d <= 4.
+// lockstep-peer tier's per-step context. w_enc[0] and w_dec[0] hold every
+// layer's W of the phase packed in one array (ops/fused_lstm.py
+// pack_weights_tf32 in f32, pack_weights in bf16); `rows` = rp rows a block
+// in tiles of 16·mt, `warps` warps, W resident (w_res) or streamed, c in
+// shared memory or in c_glob (grid x layers x rp x hidden floats;
+// lstm_mma.cuh's server); d <= 4; ctx_dim % 4 == 0 in f32, % 16 in bf16.
 int fused_serve_launch(const void* past, const void* ctx, void* out,
                        const void* const* w_enc, const void* const* b_enc,
                        const void* const* w_dec, const void* const* b_dec,
@@ -633,47 +555,47 @@ int fused_serve_launch(const void* past, const void* ctx, void* out,
                        int layers, int rows, int step_ctx, int bf16, int mt,
                        int warps, int w_res, void* c_glob, void* stream) {
   if (batch < 1 || t_in < 1 || t_out < 1 || ctx_dim < 0 || (ctx_dim > 0) != (ctx != nullptr) ||
-      (step_ctx && ctx_dim == 0))
+      (step_ctx && ctx_dim == 0) || layers < 1 || layers > MAX_LAYERS)
     return (int)cudaErrorInvalidValue;
   if (bf16) {
-    const long long smem = serve_mma_smem(rows, d, ctx_dim, hidden, layers, mt, warps, w_res, c_glob, step_ctx);
-    if (smem < 0) return (int)cudaErrorInvalidValue;
     Weights<__nv_bfloat16> wts = weights<__nv_bfloat16>(nullptr, b_enc, nullptr, b_dec, proj_w, proj_b, layers);
     wts.w_enc[0] = static_cast<const __nv_bfloat16*>(w_enc[0]);
     wts.w_dec[0] = static_cast<const __nv_bfloat16*>(w_dec[0]);
-    const lstm_mma::Geom geo{rows, mt, w_res, static_cast<float*>(c_glob)};
-#define SERVE_MMA(STEP)                                                                                      \
-  launch(fused_serve_kernel<STEP, __nv_bfloat16>, (batch + rows - 1) / rows, 32 * warps, (size_t)smem, stream, \
-         static_cast<const float*>(past), static_cast<const float*>(ctx), static_cast<float*>(out), wts, batch,  \
-         t_in, t_out, d, ctx_dim, hidden, layers, rows, static_cast<const float*>(nullptr),                    \
-         static_cast<const float*>(nullptr), geo)
-    return step_ctx ? SERVE_MMA(true) : SERVE_MMA(false);
-#undef SERVE_MMA
+    return launch_serve(past, ctx, out, wts, batch, t_in, t_out, d, ctx_dim, hidden, layers, rows, step_ctx, mt,
+                        warps, w_res, c_glob, nullptr, nullptr, stream);
   }
-  if (bad_shape(batch, t_in, d, hidden, layers, rows)) return (int)cudaErrorInvalidValue;
-  const Weights<float> wts = weights<float>(w_enc, b_enc, w_dec, b_dec, proj_w, proj_b, layers);
-  return step_ctx ? launch_serve<true>(past, ctx, out, wts, batch, t_in, t_out, d, ctx_dim, hidden, layers, rows,
-                                       nullptr, nullptr, stream)
-                  : launch_serve<false>(past, ctx, out, wts, batch, t_in, t_out, d, ctx_dim, hidden, layers, rows,
-                                        nullptr, nullptr, stream);
+  Weights<float> wts = weights<float>(nullptr, b_enc, nullptr, b_dec, proj_w, proj_b, layers);
+  wts.w_enc[0] = static_cast<const float*>(w_enc[0]);
+  wts.w_dec[0] = static_cast<const float*>(w_dec[0]);
+  return launch_serve(past, ctx, out, wts, batch, t_in, t_out, d, ctx_dim, hidden, layers, rows, step_ctx, mt, warps,
+                      w_res, c_glob, nullptr, nullptr, stream);
 }
 
-// The dynamic shared memory of a bf16 serve block at the given shape
-// (lstm_mma::serve_smem_bytes), bytes
+// The dynamic shared memory of a serve block at the given shape
+// (lstm_mma::serve_smem_bytes) in bf16 and in f32, bytes
 long long fused_serve_smem_bytes(int rows, int d, int ctx_dim, int hidden, int layers, int w_res, int c_smem,
                                  int step_ctx) {
-  return lstm_mma::serve_smem_bytes(rows, d, ctx_dim, hidden, layers, w_res, c_smem, step_ctx);
+  return lstm_mma::serve_smem_bytes<lstm_mma::Bf16Mma>(rows, d, ctx_dim, hidden, layers, w_res, c_smem, step_ctx);
+}
+long long fused_serve_tf32_smem_bytes(int rows, int d, int ctx_dim, int hidden, int layers, int w_res, int c_smem,
+                                      int step_ctx) {
+  return lstm_mma::serve_smem_bytes<lstm_mma::Tf32Mma>(rows, d, ctx_dim, hidden, layers, w_res, c_smem, step_ctx);
+}
+
+// The dynamic shared memory of a peer-context block at the given shape
+// (lstm_mma::smem_bytes of the tier), bytes
+long long peer_context_smem_bytes(int rp, int rows, int d, int ctx_dim, int w_res, int c_smem, int bf16) {
+  return bf16 ? lstm_mma::smem_bytes<lstm_mma::Bf16Mma>(true, rp, rows, d, ctx_dim, 1, w_res, c_smem)
+              : lstm_mma::smem_bytes<lstm_mma::Tf32Mma>(true, rp, rows, d, ctx_dim, 1, w_res, c_smem);
 }
 
 // The peer context of the lockstep tier: pxs (batch·n_peers, t_len, d), pwt
-// (batch, n_peers), w (d + ctx_dim, 4·ctx_dim), b (4·ctx_dim,) → ctx (batch,
-// t_len, ctx_dim). rows_v viewers a block. f32: rows_v·n_peers rows (a
-// multiple of 8), (rows_v·n_peers / 8)·(ctx_dim / 4) threads and (2·ctx_dim +
-// d + 1)·rows_v·n_peers floats of dynamic shared memory. bf16: w packed
-// (ops/fused_lstm.py pack_weights), the rows padded to rp in tiles of 16·mt,
-// `warps` warps, W resident in shared memory (w_res) or streamed, c in
-// shared memory or, where c_glob is given, in c_glob (grid x rp x ctx_dim
-// floats; lstm_mma.cuh).
+// (batch, n_peers), w (d + ctx_dim, 4·ctx_dim) packed (ops/fused_lstm.py
+// pack_weights_tf32 in f32, pack_weights in bf16), b (4·ctx_dim,) → ctx
+// (batch, t_len, ctx_dim). rows_v viewers a block, their rows padded to rp
+// in tiles of 16·mt, `warps` warps, W resident in shared memory (w_res) or
+// streamed, c in shared memory or, where c_glob is given, in c_glob (grid x
+// rp x ctx_dim floats; lstm_mma.cuh).
 int peer_context_launch(const void* pxs, const void* pwt, void* ctx,
                         const void* w, const void* b, int batch, int n_peers,
                         int t_len, int d, int ctx_dim, int rows_v, int bf16,
@@ -683,20 +605,19 @@ int peer_context_launch(const void* pxs, const void* pwt, void* ctx,
       (long long)batch * n_peers * t_len >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const int rows = rows_v * n_peers, grid = (batch + rows_v - 1) / rows_v;
-  if (bf16) {
-    const long long smem = mma_smem(true, rp, rows, d, ctx_dim, 1, mt, warps, w_res, c_glob);
-    if (smem < 0) return (int)cudaErrorInvalidValue;
-    return launch(peer_context_kernel<__nv_bfloat16>, grid, 32 * warps, (size_t)smem, stream,
-                  static_cast<const float*>(pxs), static_cast<const float*>(pwt), static_cast<float*>(ctx),
-                  weights<__nv_bfloat16>(&w, &b, nullptr, nullptr, nullptr, nullptr, 1), batch, n_peers,
-                  t_len, d, ctx_dim, rows_v, lstm_mma::Geom{rp, mt, w_res, static_cast<float*>(c_glob)});
-  }
-  if (bad_shape(batch * n_peers, t_len, d, ctx_dim, 1, rows)) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)2 * ctx_dim + d + 1) * rows * sizeof(float);
-  return launch(peer_context_kernel<float>, grid, (rows / TR) * (ctx_dim / TJ), smem, stream,
-                static_cast<const float*>(pxs), static_cast<const float*>(pwt), static_cast<float*>(ctx),
-                weights<float>(&w, &b, nullptr, nullptr, nullptr, nullptr, 1), batch, n_peers, t_len, d,
-                ctx_dim, rows_v, lstm_mma::Geom{});
+  const lstm_mma::Geom geo{rp, mt, w_res, static_cast<float*>(c_glob)};
+#define PEER(CT, P)                                                                                              \
+  do {                                                                                                           \
+    const long long smem = mma_smem<P>(true, rp, rows, d, ctx_dim, 1, mt, warps, w_res, c_glob);                 \
+    if (smem < 0) return (int)cudaErrorInvalidValue;                                                             \
+    return launch(peer_context_kernel<CT>, grid, 32 * warps, (size_t)smem, stream, static_cast<const float*>(pxs), \
+                  static_cast<const float*>(pwt), static_cast<float*>(ctx),                                      \
+                  weights<CT>(&w, &b, nullptr, nullptr, nullptr, nullptr, 1), batch, n_peers, t_len, d, ctx_dim, \
+                  rows_v, geo);                                                                                  \
+  } while (0)
+  if (bf16) PEER(__nv_bfloat16, lstm_mma::Bf16Mma);
+  PEER(float, lstm_mma::Tf32Mma);
+#undef PEER
 }
 
 // xs (batch, t_len, d) → out (batch, hidden). f32: w and b `layers` pointers
@@ -711,7 +632,8 @@ int fused_encode_launch(const void* xs, void* out, const void* const* w,
                         int warps, int w_res, void* c_glob, void* stream) {
   if (bf16) {
     const long long smem = batch < 1 || t_len < 1 ? -1
-                           : mma_smem(false, rows, rows, d, hidden, layers, mt, warps, w_res, c_glob);
+                           : mma_smem<lstm_mma::Bf16Mma>(false, rows, rows, d, hidden, layers, mt, warps, w_res,
+                                                         c_glob);
     if (smem < 0) return (int)cudaErrorInvalidValue;
     const int grid = (batch + rows - 1) / rows;
     Weights<__nv_bfloat16> wts = weights<__nv_bfloat16>(nullptr, b, nullptr, nullptr, nullptr, nullptr, layers);
@@ -730,22 +652,20 @@ int fused_encode_launch(const void* xs, void* out, const void* const* w,
 
 // The decoder alone, in f32: h0, c0 (layers, batch, hidden), y0 (batch, d),
 // ctx (batch, ctx_dim) or null when ctx_dim == 0, out (batch, t_out, d); the
-// decoder's weights as in fused_serve_launch. (2 * layers * hidden + d +
-// ctx_dim) * rows floats of dynamic shared memory.
-int fused_decode_f32(const void* h0, const void* c0, const void* y0,
-                     const void* ctx, void* out, const void* const* w_dec,
-                     const void* const* b_dec, const void* proj_w,
-                     const void* proj_b, int batch, int t_out, int d,
-                     int ctx_dim, int hidden, int layers, int rows,
-                     void* stream) {
-  if (bad_shape(batch, t_out, d, hidden, layers, rows) || ctx_dim < 0 ||
-      (ctx_dim > 0) != (ctx != nullptr))
+// decoder's weights and the block's shape as in fused_serve_launch (the f32
+// serve kernel from given states).
+int fused_decode_f32(const void* h0, const void* c0, const void* y0, const void* ctx, void* out,
+                     const void* const* w_dec, const void* const* b_dec, const void* proj_w, const void* proj_b,
+                     int batch, int t_out, int d, int ctx_dim, int hidden, int layers, int rows, int mt, int warps,
+                     int w_res, void* c_glob, void* stream) {
+  if (batch < 1 || t_out < 1 || ctx_dim < 0 || (ctx_dim > 0) != (ctx != nullptr) || layers < 1 ||
+      layers > MAX_LAYERS || h0 == nullptr || c0 == nullptr)
     return (int)cudaErrorInvalidValue;
+  Weights<float> wts = weights<float>(nullptr, nullptr, nullptr, b_dec, proj_w, proj_b, layers);
+  wts.w_dec[0] = static_cast<const float*>(w_dec[0]);
   // y0 is the kernel's past of one step
-  return launch_serve<false>(
-      y0, ctx, out,
-      weights<float>(nullptr, nullptr, w_dec, b_dec, proj_w, proj_b, layers),
-      batch, 1, t_out, d, ctx_dim, hidden, layers, rows, h0, c0, stream);
+  return launch_serve(y0, ctx, out, wts, batch, 1, t_out, d, ctx_dim, hidden, layers, rows, 0, mt, warps, w_res,
+                      c_glob, h0, c0, stream);
 }
 
 // One LSTM step: x (batch, d_in), h and c (batch, hidden), w (d_in + hidden,

@@ -1,56 +1,69 @@
-// The bf16 tier's LSTM encoders on the tensor cores (sm_90a): the layer
-// step of peer_context_kernel<__nv_bfloat16> and fused_encode_kernel<
-// __nv_bfloat16> (fused_serve.cu), an LSTM over many independent rows from
-// zero state with no feedback: per step t and layer l,
+// The LSTM encoders and serve kernel on the tensor cores (sm_90a), in both
+// compute tiers: the layer step of peer_context_kernel and fused_encode_kernel
+// <__nv_bfloat16> (fused_serve.cu), an LSTM over many independent rows from
+// zero state with no feedback, and the serve kernel (server below): per
+// step t and layer l,
 //   gates = [in_t, h_l,t-1] @ W_l + b_l;  c = f * c + i * g;  h = o * tanh(c).
+// Each body is a template on its product (Bf16Mma or Tf32Mma below): the
+// bf16 tier's products on mma.sync m16n8k16 with bf16 operands, and the f32
+// tier's (peer_context_kernel<float>, fused_serve_kernel<*, float>) in
+// three-pass TF32 on mma.sync m16n8k8, which keeps 22 bits an operand.
 //
 // What bounds it on Hopper (peer context at B = 4096, K = 7, T = 100,
 // C = 128: 28,672 rows; one step of a block of 64 rows):
 //   * the products: 64 x 144 x 512 x 2 = 9.4 MFLOP a step on mma.sync
 //     m16n8k16 (bf16 operands, f32 sums), about 2 µs at its 600-650 TFLOP/s;
+//     three times that in three-pass TF32 at half the rate, about 12 µs;
 //   * the cell: 8,192 (row, unit) pairs of three sigmoids and two tanhf in
 //     exact f32 (expf, tanhf and an IEEE division, no fast math), some 90
 //     instructions and 10 MUFU operations a pair, about 3 µs of issue; it
 //     stays on the FMA and MUFU units;
 //   * the recurrence: the steps are serial inside a block, two barriers a
-//     layer-step; blocks share nothing.
+//     layer-step; blocks share nothing;
+//   * in f32, W: no layer's W fits a block's shared memory beside the state
+//     (295 KB at C = 128), so it streams from L2 every layer-step.
 // On the card (NVIDIA H100 80GB HBM3, 700 W; scripts/torch_lstm_encode_probe.py,
-// PERF.md) a step of a block takes about 9 µs: the probe build's split is
+// PERF.md) a step of a bf16 block takes about 9 µs: the probe build's split is
 // the cell 55 %, the products 30 %, the publish and x staging 14 %. Fewer,
 // wider warps (8 of 32 x 32 tiles) made the cell slower, and two groups of
 // rows with their own barriers did not overlap one's products with the
 // other's cell better than the warps already do.
 // What the design does about it:
-//   * Warp tiles. A tile is 32 rows x 16 units (MT = 2 m16 tiles; 16 rows x
-//     32 units, MT = 1, where a block has only 16 rows) across all four
-//     gates: 16 n8 tiles, 64 f32 accumulators a lane. W's columns are packed
-//     so that a tile's n-tiles are, per unit block of 8, its i, f, g and o
-//     columns: a lane's accumulators hold the four gates of its (row, unit)
-//     pairs, and the cell update runs in registers. A block's tiles
-//     (rows x H / 512 of them) go round its warps (at most 16).
-//   * A operand. z, one row of [x_t (padded to whole k16 steps), h_0, ..,
-//     h_L-1] in bf16 a block row, in shared memory at a row stride of 16
-//     bytes past a multiple of 32 (ldmatrix's eight rows on distinct banks);
-//     layer l's A is the slice [x_t | h_l] or [h_l-1 | h_l], read by
-//     ldsm_x4. The rounding points of the tier are the writes into z: x_t
-//     and every layer's new h are rounded to bf16 as they are stored there,
-//     and the products read nothing else.
-//   * B operand. The wrapper packs W_l (pack_weights in ops/fused_lstm.py)
-//     in bf16 into mma's B fragment order: per k16 step and pair of n-tiles
-//     a lane's 16 bytes {b0, b1 of n-tile 2p, b0, b1 of n-tile 2p + 1},
-//     512 contiguous bytes a warp. Where every layer's packed W fits beside
-//     the block's state (the timed shapes: (16 + 128) x 512 bf16 = 144 KB),
-//     it is copied into shared memory once and stays there: a block reads W
-//     from L2 once, not once a step. Else a lane loads its fragments from
-//     device memory (L2) every step: the streamed route of wider or deeper
-//     encoders, which reads W once a step for every 32 rows (16 at MT = 1).
+//   * Warp tiles (BodyTile). A tile is 32 rows x 16 units (MT = 2 m16
+//     tiles; 16 rows x 32 units, MT = 1, where a block has only 16 rows)
+//     across all four gates: 16 n8 tiles, 64 f32 accumulators a lane; in
+//     f32 32 rows x 8 units (32 accumulators), and in the f32 lockstep
+//     serve kernel 64 rows x 8 units (MT = 4) or 32 x 16. W's columns are
+//     packed so that a tile's n-tiles are, per unit block of 8, its i, f, g
+//     and o columns: a lane's accumulators hold the four gates of its (row,
+//     unit) pairs, and the cell update runs in registers. A block's tiles
+//     go round its warps (at most 16; 8 in the f32 lockstep serve kernel).
+//   * A operand. z, one row of [x_t (padded to whole k-steps), h_0, ..,
+//     h_L-1] a block row, in shared memory at a row stride of 16 bytes past
+//     a multiple of 32 (ldmatrix's eight rows on distinct banks); layer l's
+//     A is the slice [x_t | h_l] or [h_l-1 | h_l], read by ldsm_x4. In bf16
+//     the rounding points of the tier are the writes into z: x_t and every
+//     layer's new h are rounded to bf16 as they are stored there, and the
+//     products read nothing else. In f32 z holds the f32 values, and ldsm_x4
+//     reads them as TF32 A fragments (tensor_core.cuh), split in registers.
+//   * B operand. The wrapper packs W_l (pack_weights, pack_weights_tf32 in
+//     ops/fused_lstm.py) into mma's B fragment order: per k-step and pair of
+//     n-tiles a lane's 16 bytes {b0, b1 of n-tile 2p, b0, b1 of n-tile
+//     2p + 1}, 512 contiguous bytes a warp (bf16: a k16 step; f32: a k8
+//     step). Where every layer's packed W fits beside the block's state (the
+//     bf16 timed shapes: (16 + 128) x 512 bf16 = 144 KB), it is copied into
+//     shared memory once and stays there: a block reads W from L2 once, not
+//     once a step. Else a lane loads its fragments from device memory (L2)
+//     every step: the streamed route of wider or deeper encoders and of
+//     every f32 block, which reads W once a step for every tile of rows (64
+//     rows in f32).
 //   * The step. Per layer-step each warp runs its tiles: the product, then
 //     the cell on the accumulators with c from its lane-private slots (f32,
 //     in shared memory, or in device memory where it does not fit) and the
 //     new h written to a staging buffer; a barrier; then the block publishes
-//     the staging into z (rounding it), sums the peer context, and stores
-//     the next step's x (its global loads issued before the products);
-//     a barrier.
+//     the staging into z (rounding it in bf16), sums the peer context, and
+//     stores the next step's x (its global loads issued before the
+//     products); a barrier.
 //   * The peer context. The staging buffer of peer_context holds the f32 h
 //     of the block's real rows (all K peers of RV viewers; the rows padded
 //     up to whole tiles compute on zeros and are never stored), XOR-swizzled
@@ -58,6 +71,22 @@
 //     Σ_k w_k · h_k (k = 0 .. K - 1 in order, each product and sum rounded
 //     to nearest, as the plain version computes them) is summed from it.
 //   * fused_encode writes the rounded top-layer h from z.
+// The three-pass TF32 product (product_tf32): an f32 operand x is split into
+// hi, x with its 13 low mantissa bits cleared, and lo = x - hi, which mma
+// reads as TF32 (split_fast: 21 bits kept); a · b is a_lo · b_hi +
+// a_hi · b_lo + a_hi · b_hi, the small terms first, a_lo · b_lo (at most
+// 2^-20 of a · b) dropped. The tensor cores round each mma's sum toward
+// zero, so the product sums each chunk of 4 or 8 k8 steps (TF32_CHUNK,
+// TF32_CHUNK_STEP_CTX) in fresh accumulators and
+// adds it to the f32 sums of the tile (round to nearest), as
+// transformer_tf32.cuh does: a 32 x 8 tile keeps 32 sums and 32 chunk
+// accumulators a lane, so an f32 block has 16 warps of 128 registers; the
+// lockstep serve kernel's 64 x 8 tiles keep 64 and 64 on 8 warps of up to
+// 255 registers, and read each W element once a 64-row block where the
+// others read it twice. W streams from L2 as packed f32 (4 B an element)
+// and is split in registers, two k8 steps ahead of its mma.
+// The split is split_fast (a mask and a subtraction, 21 bits kept), not
+// cvt.rna, whose rounding compiles to a compare and a branch a value.
 
 #pragma once
 
@@ -75,6 +104,7 @@ enum LstmPart {
   LP_PUBLISH,   // the staging into z; peer_context: the context sum and its store
   LP_BARRIERS,  // block barriers
   LP_FEEDBACK,  // the serve body: y = h_top · proj_w + proj_b, written out and into z; W's copies
+  LP_STATES,    // the f32 serve body from given states (fused_decode): h0 into z, c0 into the lanes' slots
   LP_PARTS
 };
 __device__ unsigned long long g_lstm_probe[LP_PARTS];
@@ -93,7 +123,8 @@ using bf16 = __nv_bfloat16;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a Hopper block may use
 
 // A block's shape, chosen by the wrapper (ops/fused_lstm.py encode_tc_rows,
-// peer_tc_rows): rp rows padded to whole tiles of 16·mt rows; W resident in
+// peer_tc_rows, serve_tc_rows; peer_tf32_rows, serve_tf32_rows): rp rows
+// padded to whole tiles of 16·mt rows; W resident in
 // shared memory or streamed; c in shared memory, or in c_glob (grid x layers
 // x rp x H floats) where it does not fit.
 struct Geom {
@@ -101,35 +132,81 @@ struct Geom {
   float* c_glob;
 };
 
-template <int MT>
+template <int MT, int UT_ = 4 / MT>
 struct Tile {
-  static constexpr int UT = 4 / MT;     // unit blocks of 8 a tile
+  static constexpr int UT = UT_;        // unit blocks of 8 a tile
   static constexpr int ROWS = 16 * MT;  // rows a tile
   static constexpr int UNITS = 8 * UT;  // units a tile
   static constexpr int NP = 2 * UT;     // pairs of n-tiles (4·UT n-tiles: i, f, g, o a unit block)
 };
 
-__host__ __device__ inline int kx_of(int d) { return (d + 15) / 16 * 16; }
-__host__ __device__ inline int ldz_of(int d, int h, int layers) { return kx_of(d) + layers * h + 8; }
-// uint4s of layer l's packed W: (k rows / 16) k-steps x H / 4 pairs x 32 lanes
+// The products of a tier, a template parameter of encoder and server: the
+// type E of z and of the staging, the k-rows of a k-step (KS), z's row
+// padding (PAD: 16 bytes of E), and how a value is stored into z (rounded
+// to bf16, or as it is).
+struct Bf16Mma {
+  using E = bf16;
+  static constexpr int KS = 16, PAD = 8;
+  __device__ static __forceinline__ E cvt(float x) { return __float2bfloat16_rn(x); }
+  __device__ static __forceinline__ float wide(E x) { return __bfloat162float(x); }
+  __device__ static __forceinline__ void put2(E* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+  __device__ static __forceinline__ void put4(E* p, float4 v) {
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(p);
+    dst[0] = __floats2bfloat162_rn(v.x, v.y);
+    dst[1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+  __device__ static __forceinline__ float4 get4(const E* p) {
+    const uint2 hv = *reinterpret_cast<const uint2*>(p);
+    const float2 h01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hv.x));
+    const float2 h23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hv.y));
+    return make_float4(h01.x, h01.y, h23.x, h23.y);
+  }
+};
+
+// the f32 tier's three-pass TF32 products (product_tf32)
+struct Tf32Mma {
+  using E = float;
+  static constexpr int KS = 8, PAD = 4;
+  __device__ static __forceinline__ E cvt(float x) { return x; }
+  __device__ static __forceinline__ float wide(E x) { return x; }
+  __device__ static __forceinline__ void put2(E* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+  __device__ static __forceinline__ void put4(E* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+  __device__ static __forceinline__ float4 get4(const E* p) { return *reinterpret_cast<const float4*>(p); }
+};
+
+template <typename P = Bf16Mma>
+__host__ __device__ inline int kx_of(int d) { return (d + P::KS - 1) / P::KS * P::KS; }
+template <typename P = Bf16Mma>
+__host__ __device__ inline int ldz_of(int d, int h, int layers) { return kx_of<P>(d) + layers * h + P::PAD; }
+// uint4s of a k-step of packed W, in both tiers: H / 4 pairs of n-tiles x 32 lanes
+__host__ __device__ inline int kstride_of(int h) { return h / 4 * 32; }
+// uint4s of layer l's packed W: (k rows / KS) k-steps
+template <typename P = Bf16Mma>
 __host__ __device__ inline long long w_layer_u4(int l, int d, int h) {
-  return (long long)((l ? h : kx_of(d)) + h) / 16 * (h / 4) * 32;
+  return (long long)((l ? h : kx_of<P>(d)) + h) / P::KS * kstride_of(h);
 }
+template <typename P = Bf16Mma>
 __host__ __device__ inline long long w_u4(int d, int h, int layers) {
   long long n = 0;
-  for (int l = 0; l < layers; ++l) n += w_layer_u4(l, d, h);
+  for (int l = 0; l < layers; ++l) n += w_layer_u4<P>(l, d, h);
   return n;
 }
 
 // Shared memory of a block, in this order: W (when resident), c (when in
 // shared memory), z, the staging buffer (peer: the f32 h of the `rows` real
-// rows; encode: bf16 rows of H + 8), and the peer weights of the rows.
-__host__ __device__ inline long long smem_bytes(bool peer, int rp, int rows, int d, int h, int layers,
-                                                bool w_res, bool c_smem) {
-  long long s = w_res ? 16 * w_u4(d, h, layers) : 0;
+// rows; encode: E rows of H + 8), and the peer weights of the rows.
+template <typename P = Bf16Mma>
+__host__ __device__ inline long long smem_bytes(bool peer, int rp, int rows, int d, int h, int layers, bool w_res,
+                                                bool c_smem) {
+  constexpr int e = sizeof(typename P::E);
+  long long s = w_res ? 16 * w_u4<P>(d, h, layers) : 0;
   s += c_smem ? 4LL * layers * rp * h : 0;
-  s += 2LL * rp * ldz_of(d, h, layers);
-  s += peer ? 4LL * rows * h + (4LL * rows + 15) / 16 * 16 : 2LL * rp * (h + 8);
+  s += (long long)e * rp * ldz_of<P>(d, h, layers);
+  s += peer ? 4LL * rows * h + (4LL * rows + 15) / 16 * 16 : (long long)e * rp * (h + 8);
   return s;
 }
 
@@ -182,6 +259,129 @@ __device__ __forceinline__ void product(float (&acc)[MT][Tile<MT>::UT][4][4], co
   for (int ks = 0; ks < ks_b; ++ks) step(zb + ks * 16, w + (size_t)ks * kstride);
 }
 
+// k8 steps a chunk of product_tf32's fresh accumulators: 4, and 8 in the
+// lockstep serve kernel (measured in turns: 6.5 % faster there, 2-5 % slower
+// in the other f32 instances; PERF.md §6, row 1)
+constexpr int TF32_CHUNK = 4, TF32_CHUNK_STEP_CTX = 8;
+
+// x → (hi, lo) for the three passes, in integer and f32 adds, no cvt (whose
+// rna rounding compiles to a compare and a branch a value): hi = x with its
+// 13 low mantissa bits cleared, a TF32 value; lo = x - hi, exact, which mma
+// reads as TF32, dropping lo's low bits. hi + lo keeps 21 bits of x.
+__device__ __forceinline__ void split_fast(float x, unsigned& hi, unsigned& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// 16 bytes of packed W from device memory through the read-only path
+__device__ __forceinline__ uint4 ldg_u4(const uint4* p) { return __ldg(p); }
+
+// sum += [za | zb] (the tile's rows, ks_a then ks_b k8 steps, f32) · W_tile
+// in three-pass TF32: A by ldsm_x4 from z as TF32 fragments and split in
+// registers; B from device memory as packed (w: the tile's first pair of
+// the first k-step, plus the lane; kstride uint4s a k-step), two k8 steps
+// ahead of its mma, split after the load; each chunk of CHUNK k8 steps
+// summed in fresh accumulators, then added to sum.
+template <int MT, int CHUNK, int UT>
+__device__ __forceinline__ void product_tf32(float (&sum)[MT][UT][4][4], const float* za, int ks_a,
+                                             const float* zb, int ks_b, const uint4* __restrict__ w, int kstride,
+                                             int ldz, int lane) {
+  using TL = Tile<MT, UT>;
+  constexpr int NP = TL::NP;
+  const int arow = (lane & 15) * ldz + (lane >> 4) * 4;
+  const int steps = ks_a + ks_b;
+  // k8 step s: A's columns, W's step (past the last: the last again, unread)
+  auto a_at = [&](int s) { return (s < ks_a ? za + 8 * s : zb + 8 * (s - ks_a)) + arow; };
+  auto load = [&](uint4 (&b)[NP], int s) {
+    const uint4* wk = w + (size_t)min(s, steps - 1) * kstride;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) b[p] = ldg_u4(wk + p * 32);
+  };
+  auto step = [&](float (&acc)[MT][TL::UT][4][4], const float* ap, const uint4 (&b)[NP]) {
+    unsigned bh[NP][4], bl[NP][4];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const float v[4] = {__uint_as_float(b[p].x), __uint_as_float(b[p].y), __uint_as_float(b[p].z),
+                          __uint_as_float(b[p].w)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_fast(v[e], bh[p][e], bl[p][e]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      unsigned r[4], ah[4], al[4];
+      ldsm_x4(r, ap + mt * 16 * ldz);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_fast(__uint_as_float(r[e]), ah[e], al[e]);
+      // the passes a_lo·b_hi, a_hi·b_lo, a_hi·b_hi, each over the m-tile's
+      // n-tiles: 2·NP independent sums between dependent mma
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const unsigned(&a)[4] = pass == 0 ? al : ah;
+            const unsigned(&b)[4] = pass == 1 ? bl[p] : bh[p];
+            mma_tf32(acc[mt][p >> 1][2 * (p & 1) + hf], a, b[2 * hf], b[2 * hf + 1]);
+          }
+    }
+  };
+  uint4 b0[NP], b1[NP];
+  load(b0, 0);
+  load(b1, 1);
+  for (int s0 = 0; s0 < steps; s0 += CHUNK) {
+    float acc[MT][TL::UT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int ut = 0; ut < TL::UT; ++ut)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][ut][q][e] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CHUNK; j += 2) {
+      const int s = s0 + j;
+      if (s < steps) {
+        step(acc, a_at(s), b0);
+        load(b0, s + 2);
+      }
+      if (s + 1 < steps) {
+        step(acc, a_at(s + 1), b1);
+        load(b1, s + 3);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int ut = 0; ut < TL::UT; ++ut)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[mt][ut][q][e] += acc[mt][ut][q][e];
+  }
+}
+
+// The warp tile of a body of the tier P: 16·MT rows x 32 / MT units, all
+// four gates (bf16: 16 warps of 128 registers), except the f32 peer
+// context and serve kernel, 32 rows x 8 units (MT = 2: 16 warps of 128
+// registers), and the f32 lockstep serve kernel (STEP_CTX), 64 x 8 (MT = 4)
+// or 32 x 16 on 8 warps of up to 255 registers: each measured faster
+// there than the other (PERF.md §6, row 1).
+template <typename P, int MT, bool STEP_CTX = false>
+using BodyTile = Tile<MT, std::is_same<P, Tf32Mma>::value && !STEP_CTX ? 1 : 4 / MT>;
+
+// the tier's product of a tile: bf16 (product) or three-pass TF32 (product_tf32 in chunks of CHUNK k8 steps)
+template <typename P, int MT, int CHUNK = TF32_CHUNK, int UT>
+__device__ __forceinline__ void tile_product(float (&acc)[MT][UT][4][4], const typename P::E* za, int ks_a,
+                                             const typename P::E* zb, int ks_b, const uint4* w, int kstride, int ldz,
+                                             int lane) {
+  if constexpr (std::is_same<P, Tf32Mma>::value)
+    product_tf32<MT, CHUNK>(acc, za, ks_a, zb, ks_b, w, kstride, ldz, lane);
+  else
+    product<MT>(acc, za, ks_a, zb, ks_b, w, kstride, ldz, lane);
+}
+
 // The cell update of a tile from its accumulators: the lane's pairs (rows
 // r0 + 16·mt + g and + 8, units u0 + 8·ut + 2t and + 1). bias(ut, q, unit)
 // gives gate q's f32 bias at units unit, unit + 1; c_get(mt, ut) the old c
@@ -190,10 +390,10 @@ __device__ __forceinline__ void product(float (&acc)[MT][Tile<MT>::UT][4][4], co
 // put(row, unit, h_unit, h_unit+1). The encoders keep c in lane-private f32
 // slots; the one-step cell (cell_step) takes c from, and gives it to, bf16
 // pairs in device memory.
-template <int MT, typename Bias, typename CGet, typename CSet, typename Put>
-__device__ __forceinline__ void cell(const float (&acc)[MT][Tile<MT>::UT][4][4], int r0, int u0, int lane,
+template <int MT, int UT, typename Bias, typename CGet, typename CSet, typename Put>
+__device__ __forceinline__ void cell(const float (&acc)[MT][UT][4][4], int r0, int u0, int lane,
                                      Bias bias, CGet c_get, CSet c_set, Put put) {
-  using TL = Tile<MT>;
+  using TL = Tile<MT, UT>;
   const int g8 = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int ut = 0; ut < TL::UT; ++ut) {
@@ -225,29 +425,31 @@ __device__ __forceinline__ void cell(const float (&acc)[MT][Tile<MT>::UT][4][4],
   }
 }
 
-// The L-layer encoder over T steps for the block's rows, from zero state.
+// The L-layer encoder over T steps for the block's rows, from zero state,
+// its products those of P (Bf16Mma or Tf32Mma).
 // PEER: the lockstep peer cells (L = 1, hidden H = C): rows = RV·K real rows
 // of peer rows p = p0 + r (p < nrows), and after every step ctx_t of the
-// block's viewers into out (B, T, C). Else (fused_encode): rows = rp batch
-// rows from p0 (p < nrows), and the rounded top-layer h into out (B, H).
-template <int MT, bool PEER>
+// block's viewers into out (B, T, C). Else (fused_encode, bf16): rows = rp
+// batch rows from p0 (p < nrows), and the rounded top-layer h into out (B, H).
+template <typename P, int MT, bool PEER>
 __device__ __forceinline__ void encoder(const float* __restrict__ xs, const float* __restrict__ pwt,
                                         float* __restrict__ out, const uint4* __restrict__ wg,
                                         const float* const* bias, long long p0, int nrows, int rows, int T,
                                         int D, int H, int L, int K, int RV, int B, const Geom& geo) {
-  using TL = Tile<MT>;
+  using TL = BodyTile<P, MT>;
+  using E = typename P::E;
   extern __shared__ float4 smem4[];
   const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
-  const int rp = geo.rp, kx = kx_of(D), ldz = ldz_of(D, H, L);
+  const int rp = geo.rp, kx = kx_of<P>(D), ldz = ldz_of<P>(D, H, L);
   const int bands = H / TL::UNITS, tiles = rp / TL::ROWS * bands;
-  const int kstride = H / 4 * 32;  // uint4s of a k-step of packed W
+  const int kstride = kstride_of(H);  // uint4s of a k-step of packed W
   LstmProbe pr(g_lstm_probe);
 
   char* sp = reinterpret_cast<char*>(smem4);
   const uint4* w_all = wg;
   if (geo.w_res) {
     uint4* ws = reinterpret_cast<uint4*>(sp);
-    const long long n = w_u4(D, H, L);
+    const long long n = w_u4<P>(D, H, L);
     for (long long i = tid; i < n; i += nthr) ws[i] = wg[i];
     w_all = ws;
     sp += 16 * n;
@@ -259,15 +461,16 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
     cm = reinterpret_cast<float4*>(sp);
     sp += (size_t)4 * L * rp * H;
   }
-  bf16* z = reinterpret_cast<bf16*>(sp);
-  sp += (size_t)2 * rp * ldz;
+  E* z = reinterpret_cast<E*>(sp);
+  sp += sizeof(E) * rp * ldz;
   float* hst = reinterpret_cast<float*>(sp);  // PEER: f32 h of the real rows, swizzled
-  bf16* est = reinterpret_cast<bf16*>(sp);    // else: bf16 h, rows of H + 8
+  E* est = reinterpret_cast<E*>(sp);          // else: h in E, rows of H + 8
   const int lde = H + 8;
   float* wrow = reinterpret_cast<float*>(sp + (size_t)4 * rows * H);  // PEER: w of the rows
 
   for (int i = tid; i < L * rp * H / 4; i += nthr) cm[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int i = tid; i < rp * ldz / 8; i += nthr) reinterpret_cast<uint4*>(z)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < rp * ldz * (int)sizeof(E) / 16; i += nthr)
+    reinterpret_cast<uint4*>(z)[i] = make_uint4(0, 0, 0, 0);
   if constexpr (PEER)
     for (int r = tid; r < rows; r += nthr) wrow[r] = p0 + r < nrows ? pwt[p0 + r] : 0.0f;
   // x_t into z[r][0 .. D): element i of the block's rp x D, 0 past the rows
@@ -277,7 +480,7 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
   };
   auto x_put = [&](int i, float v) {
     const int r = i / D;
-    z[r * ldz + (i - r * D)] = __float2bfloat16_rn(v);
+    z[r * ldz + (i - r * D)] = P::cvt(v);
   };
   __syncthreads();  // z zeroed before x_0 lands in it
   for (int i = tid; i < rp * D; i += nthr) x_put(i, x_at(0, i));
@@ -288,9 +491,9 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
     const float xr = t + 1 < T && tid < rp * D ? x_at(t + 1, tid) : 0.0f;
     pr.mark(LP_STAGE);
     for (int l = 0; l < L; ++l) {
-      const bf16* za = z + (l ? kx + (l - 1) * H : 0);
-      const bf16* zb = z + kx + l * H;
-      const uint4* wl = w_all + (l ? w_layer_u4(0, D, H) + (l - 1) * w_layer_u4(1, D, H) : 0);
+      const E* za = z + (l ? kx + (l - 1) * H : 0);
+      const E* zb = z + kx + l * H;
+      const uint4* wl = w_all + (l ? w_layer_u4<P>(0, D, H) + (l - 1) * w_layer_u4<P>(1, D, H) : 0);
       float4* cl = cm + (size_t)l * rp * H / 4 + lane;
       for (int tau = warp; tau < tiles; tau += nwarps) {
         const int r0 = tau / bands * TL::ROWS, u0 = tau % bands * TL::UNITS;
@@ -303,8 +506,8 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
             for (int q = 0; q < 4; ++q)
 #pragma unroll
               for (int e = 0; e < 4; ++e) acc[mt][ut][q][e] = 0.0f;
-        product<MT>(acc, za + r0 * ldz, (l ? H : kx) / 16, zb + r0 * ldz, H / 16,
-                    wl + tau % bands * TL::NP * 32 + lane, kstride, ldz, lane);
+        tile_product<P, MT>(acc, za + r0 * ldz, (l ? H : kx) / P::KS, zb + r0 * ldz, H / P::KS,
+                            wl + tau % bands * TL::NP * 32 + lane, kstride, ldz, lane);
         pr.mark(LP_PRODUCTS);
         float4* cs = cl + (size_t)tau * MT * TL::UT * 32;
         const float* bl = bias[l];
@@ -316,15 +519,14 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
             if (row < rows) *reinterpret_cast<float2*>(hst + row * H + swz(row, unit)) = make_float2(h0, h1);
           });
         } else {
-          cell<MT>(acc, r0, u0, lane, b_of, c_get, c_set, [&](int row, int unit, float h0, float h1) {
-            *reinterpret_cast<__nv_bfloat162*>(est + row * lde + unit) = __floats2bfloat162_rn(h0, h1);
-          });
+          cell<MT>(acc, r0, u0, lane, b_of, c_get, c_set,
+                   [&](int row, int unit, float h0, float h1) { P::put2(est + row * lde + unit, h0, h1); });
         }
         pr.mark(LP_CELL);
       }
       __syncthreads();  // every tile of the layer-step read z; the staging is whole
       pr.mark(LP_BARRIERS);
-      bf16* zh = z + kx + l * H;
+      E* zh = z + kx + l * H;
       if constexpr (PEER) {  // a warp a viewer, a lane 4 units: its K rows into z and ctx_t
         const long long b0 = p0 / K;
         for (int v = warp; v < RV && b0 + v < B; v += nwarps) {
@@ -339,16 +541,15 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
               s.y = __fadd_rn(s.y, __fmul_rn(h.y, w));
               s.z = __fadd_rn(s.z, __fmul_rn(h.z, w));
               s.w = __fadd_rn(s.w, __fmul_rn(h.w, w));
-              __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(zh + r * ldz + u);
-              dst[0] = __floats2bfloat162_rn(h.x, h.y);
-              dst[1] = __floats2bfloat162_rn(h.z, h.w);
+              P::put4(zh + r * ldz + u, h);
             }
             *reinterpret_cast<float4*>(out + ((size_t)(b0 + v) * T + t) * H + u) = s;
           }
         }
       } else {
-        for (int i = tid; i < rp * H / 8; i += nthr) {
-          const int r = i / (H / 8), u = (i % (H / 8)) * 8;
+        constexpr int EV = 16 / sizeof(E);  // elements a uint4
+        for (int i = tid; i < rp * H / EV; i += nthr) {
+          const int r = i / (H / EV), u = (i % (H / EV)) * EV;
           *reinterpret_cast<uint4*>(zh + r * ldz + u) = *reinterpret_cast<const uint4*>(est + r * lde + u);
         }
       }
@@ -363,19 +564,20 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
     }
   }
   if constexpr (!PEER) {  // the rounded top-layer h, row-major
-    const bf16* ztop = z + kx + (L - 1) * H;
+    const E* ztop = z + kx + (L - 1) * H;
     for (int i = tid; i < rp * H; i += nthr) {
       const int r = i / H, u = i % H;
-      if (p0 + r < nrows) out[(p0 + r) * H + u] = __bfloat162float(ztop[r * ldz + u]);
+      if (p0 + r < nrows) out[(p0 + r) * H + u] = P::wide(ztop[r * ldz + u]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 tier's serve kernel (fused_serve_kernel<STEP_CTX, __nv_bfloat16>
-// in fused_serve.cu, replacing the Pallas _serve_kernel of
-// longterm360fov_tpu/ops/fused_lstm.py::fused_serve at compute_dtype=
-// bfloat16): the L-layer encoder over T_in steps from zero state, then T_out
+// The serve kernel in both tiers (fused_serve_kernel<STEP_CTX, CT> in
+// fused_serve.cu, replacing the Pallas _serve_kernel of
+// longterm360fov_tpu/ops/fused_lstm.py::fused_serve, f32 and
+// compute_dtype=bfloat16; the f32 instance from given states also replaces
+// _decode_kernel of fused_decode): the L-layer encoder over T_in steps from zero state, then T_out
 // decoder steps from the encoder's final (h, c) of every layer, the layer-0
 // input [y, ctx], and y = round(h_top) · proj_w + proj_b fed back; ctx
 // none, static (B, C), or (STEP_CTX) the lockstep tier's per-step ctx_t
@@ -413,53 +615,71 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
 //   * The lockstep tier's ctx_t+1 comes by cp.async into an f32 staging
 //     buffer during step t's products and is rounded into z after layer 0
 //     has read ctx_t, each thread the pieces it copied.
-// Given states (h0, c0: fused_decode) are not taken: fused_decode widens
-// bf16 to f32 and runs the f32 instance.
+// The f32 tier (P = Tf32Mma) is the same body with z, the staging and W in
+// f32 and the products in three-pass TF32 (product_tf32): k8 steps, the
+// context padded to whole k8 steps, 64-row warp tiles of 8 warps, W always
+// from L2 (one phase is 0.3-1.1 MB in f32). Its row 3 instance takes given
+// states (h0, c0 (L, B, H) and y0 as the past of one step: fused_decode):
+// h0 into z, c0 into the lanes' slots of every tile, then the decoder phase
+// alone. The bf16 body takes none: fused_decode widens bf16 to f32 and runs
+// the f32 instance.
 
-// z's row of the serve body, bf16: [x or y (kx_of(d)) | ctx (c) | h of every layer | 8]
-__host__ __device__ inline int serve_ldz(int d, int c, int h, int layers) { return kx_of(d) + c + layers * h + 8; }
+// z's row of the serve body, in P::E: [x or y (kx_of(d)) | ctx (c, padded to
+// whole k-steps) | h of every layer | PAD]
+template <typename P = Bf16Mma>
+__host__ __device__ inline int ctx_pad(int c) { return (c + P::KS - 1) / P::KS * P::KS; }
+template <typename P = Bf16Mma>
+__host__ __device__ inline int serve_ldz(int d, int c, int h, int layers) {
+  return kx_of<P>(d) + ctx_pad<P>(c) + layers * h + P::PAD;
+}
 // uint4s of one phase's packed W: layer 0 (k_in0 + h k-rows), then layers - 1 of 2h
+template <typename P = Bf16Mma>
 __host__ __device__ inline long long phase_w_u4(int k_in0, int h, int layers) {
-  return ((long long)k_in0 + h + (long long)(layers - 1) * 2 * h) / 16 * (h / 4) * 32;
+  return ((long long)k_in0 + h + (long long)(layers - 1) * 2 * h) / P::KS * kstride_of(h);
 }
 
 constexpr int SERVE_MAX_D = 4;  // coordinates a token the serve body takes
 
 // Shared memory of a serve block, in this order: W (when resident: the
 // larger phase's), c (when in shared memory), z, the staging of the new h
-// (bf16 rows of H + 8), proj_w transposed (d x h f32), and with STEP_CTX
+// (E rows of H + 8), proj_w transposed (d x h f32), and with STEP_CTX
 // ctx_t+1 (rp x c f32).
+template <typename P = Bf16Mma>
 __host__ __device__ inline long long serve_smem_bytes(int rp, int d, int c, int h, int layers, bool w_res,
                                                       bool c_smem, bool step_ctx) {
-  const int kx = kx_of(d);
-  const long long w = phase_w_u4(kx, h, layers) > phase_w_u4(kx + c, h, layers) ? phase_w_u4(kx, h, layers)
-                                                                                 : phase_w_u4(kx + c, h, layers);
+  constexpr int e = sizeof(typename P::E);
+  const int kx = kx_of<P>(d), kxc = kx + ctx_pad<P>(c);
+  const long long w = phase_w_u4<P>(kx, h, layers) > phase_w_u4<P>(kxc, h, layers) ? phase_w_u4<P>(kx, h, layers)
+                                                                                     : phase_w_u4<P>(kxc, h, layers);
   long long s = w_res ? 16 * w : 0;
   s += c_smem ? 4LL * layers * rp * h : 0;
-  s += 2LL * rp * serve_ldz(d, c, h, layers) + 2LL * rp * (h + 8) + 4LL * d * h;
+  s += (long long)e * rp * serve_ldz<P>(d, c, h, layers) + (long long)e * rp * (h + 8) + 4LL * d * h;
   return s + (step_ctx ? 4LL * rp * c : 0);
 }
 
-template <int MT, bool STEP_CTX>
+template <typename P, int MT, bool STEP_CTX>
 __device__ __forceinline__ void server(const float* __restrict__ past, const float* __restrict__ ctx,
                                        float* __restrict__ out, const uint4* __restrict__ w_enc,
                                        const uint4* __restrict__ w_dec, const float* const* b_enc,
-                                       const float* const* b_dec, const bf16* __restrict__ proj_w,
+                                       const float* const* b_dec, const typename P::E* __restrict__ proj_w,
                                        const float* __restrict__ proj_b, int B, int T_in, int T_out, int D, int C,
-                                       int H, int L, const Geom& geo) {
-  using TL = Tile<MT>;
+                                       int H, int L, const Geom& geo, const float* __restrict__ h0 = nullptr,
+                                       const float* __restrict__ c0 = nullptr) {
+  using TL = BodyTile<P, MT, STEP_CTX>;
+  using E = typename P::E;
+  constexpr bool STATES = std::is_same<P, Tf32Mma>::value;  // the f32 body takes given states
   extern __shared__ float4 smem4[];
   const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
-  const int rp = geo.rp, kx = kx_of(D), kxc = kx + C, ldz = serve_ldz(D, C, H, L), lde = H + 8;
+  const int rp = geo.rp, kx = kx_of<P>(D), kxc = kx + ctx_pad<P>(C), ldz = serve_ldz<P>(D, C, H, L), lde = H + 8;
   const int bands = H / TL::UNITS, tiles = rp / TL::ROWS * bands;
-  const int kstride = H / 4 * 32;  // uint4s of a k-step of packed W
+  const int kstride = kstride_of(H);  // uint4s of a k-step of packed W
   const long long p0 = (long long)blockIdx.x * rp;
   const int nrows = (int)min((long long)rp, (long long)B - p0);  // the block's rows in the batch
   LstmProbe pr(g_lstm_probe);
 
   char* sp = reinterpret_cast<char*>(smem4);
   uint4* ws = reinterpret_cast<uint4*>(sp);
-  if (geo.w_res) sp += 16 * max(phase_w_u4(kx, H, L), phase_w_u4(kxc, H, L));
+  if (geo.w_res) sp += 16 * max(phase_w_u4<P>(kx, H, L), phase_w_u4<P>(kxc, H, L));
   float4* cm;
   if (geo.c_glob) {
     cm = reinterpret_cast<float4*>(geo.c_glob + (size_t)blockIdx.x * L * rp * H);
@@ -467,11 +687,11 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
     cm = reinterpret_cast<float4*>(sp);
     sp += (size_t)4 * L * rp * H;
   }
-  bf16* z = reinterpret_cast<bf16*>(sp);
-  sp += (size_t)2 * rp * ldz;
-  bf16* est = reinterpret_cast<bf16*>(sp);  // the new h of a layer-step, rounded, rows of H + 8
-  sp += (size_t)2 * rp * lde;
-  float* pwt = reinterpret_cast<float*>(sp);  // proj_w transposed, (D, H) f32 (bf16 values)
+  E* z = reinterpret_cast<E*>(sp);
+  sp += sizeof(E) * rp * ldz;
+  E* est = reinterpret_cast<E*>(sp);  // the new h of a layer-step (rounded in bf16), rows of H + 8
+  sp += sizeof(E) * rp * lde;
+  float* pwt = reinterpret_cast<float*>(sp);  // proj_w transposed, (D, H) f32
   sp += (size_t)4 * D * H;
   float* cst = reinterpret_cast<float*>(sp);  // STEP_CTX: ctx_t+1 (rp, C)
 
@@ -479,15 +699,15 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
   // resident, else read where it is
   auto w_phase = [&](const uint4* wg, int k_in0) {
     if (!geo.w_res) return wg;
-    const long long n = phase_w_u4(k_in0, H, L);
+    const long long n = phase_w_u4<P>(k_in0, H, L);
     for (long long i = tid; i < n; i += nthr) ws[i] = wg[i];
     return static_cast<const uint4*>(ws);
   };
   // One layer-step of every tile: [za | zb] · W_l + b_l on the tensor
   // cores, the cell on the accumulators with c from the lanes' slots of
-  // layer l, the new h rounded into est.
-  auto layer_tiles = [&](const uint4* wl, const float* bl, const bf16* za, int ks_a, int l) {
-    const bf16* zb = z + kxc + l * H;
+  // layer l, the new h into est.
+  auto layer_tiles = [&](const uint4* wl, const float* bl, const E* za, int ks_a, int l) {
+    const E* zb = z + kxc + l * H;
     float4* cl0 = cm + (size_t)l * rp * H / 4 + lane;
     for (int tau = warp; tau < tiles; tau += nwarps) {
       const int r0 = tau / bands * TL::ROWS, u0 = tau % bands * TL::UNITS;
@@ -500,30 +720,31 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
           for (int q = 0; q < 4; ++q)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[mt][ut][q][e] = 0.0f;
-      product<MT>(acc, za + r0 * ldz, ks_a, zb + r0 * ldz, H / 16, wl + tau % bands * TL::NP * 32 + lane, kstride,
-                  ldz, lane);
+      tile_product<P, MT, STEP_CTX ? TF32_CHUNK_STEP_CTX : TF32_CHUNK>(acc, za + r0 * ldz, ks_a, zb + r0 * ldz,
+                                                                      H / P::KS, wl + tau % bands * TL::NP * 32 + lane,
+                                                                      kstride, ldz, lane);
       pr.mark(LP_PRODUCTS);
       float4* cs = cl0 + (size_t)tau * MT * TL::UT * 32;
       auto b_of = [&](int, int q, int unit) { return __ldg(reinterpret_cast<const float2*>(bl + q * H + unit)); };
       auto c_get = [&](int mt, int ut) { return cs[(mt * TL::UT + ut) * 32]; };
       auto c_set = [&](int mt, int ut, float4 c) { cs[(mt * TL::UT + ut) * 32] = c; };
-      cell<MT>(acc, r0, u0, lane, b_of, c_get, c_set, [&](int row, int unit, float h0, float h1) {
-        *reinterpret_cast<__nv_bfloat162*>(est + row * lde + unit) = __floats2bfloat162_rn(h0, h1);
-      });
+      cell<MT>(acc, r0, u0, lane, b_of, c_get, c_set,
+               [&](int row, int unit, float h0, float h1) { P::put2(est + row * lde + unit, h0, h1); });
       pr.mark(LP_CELL);
     }
   };
-  // est (the rounded new h of layer l) into z
+  // est (the new h of layer l) into z
   auto publish = [&](int l) {
-    bf16* zh = z + kxc + l * H;
-    for (int i = tid; i < rp * H / 8; i += nthr) {
-      const int r = i / (H / 8), u = (i % (H / 8)) * 8;
+    constexpr int EV = 16 / sizeof(E);  // elements a uint4
+    E* zh = z + kxc + l * H;
+    for (int i = tid; i < rp * H / EV; i += nthr) {
+      const int r = i / (H / EV), u = (i % (H / EV)) * EV;
       *reinterpret_cast<uint4*>(zh + r * ldz + u) = *reinterpret_cast<const uint4*>(est + r * lde + u);
     }
   };
   // the layer-l slice of a phase's packed W (k_in0 + H k-rows at layer 0)
   auto w_layer = [&](const uint4* w_all, int k_in0, int l) {
-    return w_all + (l ? (size_t)((k_in0 + H) / 16 + (l - 1) * (2 * H / 16)) * kstride : 0);
+    return w_all + (l ? (size_t)((k_in0 + H) / P::KS + (l - 1) * (2 * H / P::KS)) * kstride : 0);
   };
   // x_t into z[r][0 .. D): element i of the block's rp x D, 0 past the rows
   auto x_at = [&](int t, int i) {
@@ -532,7 +753,7 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
   };
   auto x_put = [&](int i, float v) {
     const int r = i / D;
-    z[r * ldz + (i - r * D)] = __float2bfloat16_rn(v);
+    z[r * ldz + (i - r * D)] = P::cvt(v);
   };
   // ctx_t's pieces of 4 columns: piece i is row i / (C / 4), columns 4·(i % (C / 4))..
   auto ctx_src = [&](int r, int t) {
@@ -540,15 +761,15 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
   };
   auto ctx_put = [&](int i, float4 v) {
     const int r = i / (C / 4), c = (i % (C / 4)) * 4;
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(z + r * ldz + kx + c);
-    dst[0] = __floats2bfloat162_rn(v.x, v.y);
-    dst[1] = __floats2bfloat162_rn(v.z, v.w);
+    P::put4(z + r * ldz + kx + c, v);
   };
 
   for (int i = tid; i < L * rp * H / 4; i += nthr) cm[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int i = tid; i < rp * ldz / 8; i += nthr) reinterpret_cast<uint4*>(z)[i] = make_uint4(0, 0, 0, 0);
-  for (int i = tid; i < D * H; i += nthr) pwt[i] = __bfloat162float(proj_w[(i % H) * D + i / H]);
-  const uint4* wa = w_phase(w_enc, kx);
+  for (int i = tid; i < rp * ldz * (int)sizeof(E) / 16; i += nthr)
+    reinterpret_cast<uint4*>(z)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < D * H; i += nthr) pwt[i] = P::wide(proj_w[(i % H) * D + i / H]);
+  const bool states = STATES && h0 != nullptr;
+  const uint4* wa = states ? w_enc : w_phase(w_enc, kx);
   __syncthreads();  // z zeroed before x_0 and the first context land in it
   for (int i = tid; i < rp * D; i += nthr) x_put(i, x_at(0, i));
   // the static context, or ctx_0: z's ctx columns, which the encoder does not read
@@ -556,16 +777,39 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
     const int r = i / (C / 4);
     if (r < nrows) ctx_put(i, __ldg(reinterpret_cast<const float4*>(ctx_src(r, 0) + (i % (C / 4)) * 4)));
   }
+  if constexpr (STATES) {
+    if (states) {  // given states: h0 (L, B, H) into z's h columns, c0 into the lanes' slots of every tile
+      for (int i = tid; i < L * rp * H / 4; i += nthr) {
+        const int l = i / (rp * H / 4), r = i % (rp * H / 4) / (H / 4), u = i % (H / 4) * 4;
+        const float4 v = r < nrows ? __ldg(reinterpret_cast<const float4*>(h0 + ((size_t)l * B + p0 + r) * H + u))
+                                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        P::put4(z + r * ldz + kxc + l * H + u, v);
+      }
+      // slot (tile tau, mt·UT + ut, lane) of layer l: rows r0 + 16·mt + g and + 8, units u0 + 8·ut + 2t and + 1
+      for (int i = tid; i < L * rp * H / 4; i += nthr) {
+        const int l = i / (rp * H / 4), k = i % (rp * H / 4), ln = k % 32, j = k / 32 % (MT * TL::UT);
+        const int tau = k / 32 / (MT * TL::UT), mt = j / TL::UT, ut = j % TL::UT;
+        const int row = tau / bands * TL::ROWS + 16 * mt + (ln >> 2);
+        const int unit = tau % bands * TL::UNITS + 8 * ut + 2 * (ln & 3);
+        const float* src = c0 + ((size_t)l * B + p0 + row) * H + unit;
+        const float2 lo = row < nrows ? __ldg(reinterpret_cast<const float2*>(src)) : make_float2(0.0f, 0.0f);
+        const float2 hi = row + 8 < nrows ? __ldg(reinterpret_cast<const float2*>(src + 8 * H))
+                                          : make_float2(0.0f, 0.0f);
+        cm[i] = make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+      pr.mark(LP_STATES);
+    }
+  }
   __syncthreads();  // W, z and c in place
   pr.mark(LP_FEEDBACK);
 
   // -- the encoder over T_in steps; layer 0's A is [x | h_0]
-  for (int t = 0; t < T_in; ++t) {
+  for (int t = 0; t < (states ? 0 : T_in); ++t) {
     // the thread's first element of x_t+1, loaded ahead of the products
     const float xr = t + 1 < T_in && tid < rp * D ? x_at(t + 1, tid) : 0.0f;
     pr.mark(LP_STAGE);
     for (int l = 0; l < L; ++l) {
-      layer_tiles(w_layer(wa, kx, l), b_enc[l], l ? z + kxc + (l - 1) * H : z, (l ? H : kx) / 16, l);
+      layer_tiles(w_layer(wa, kx, l), b_enc[l], l ? z + kxc + (l - 1) * H : z, (l ? H : kx) / P::KS, l);
       __syncthreads();  // every tile of the layer-step read z; the staging is whole
       pr.mark(LP_BARRIERS);
       publish(l);
@@ -580,8 +824,8 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
     }
   }
 
-  // -- the decoder over T_out steps from the encoder's (h, c); y_0 = x_T_in-1
-  // is in z; layer 0's A is [y | ctx | h_0]
+  // -- the decoder over T_out steps from the encoder's (h, c) or the given
+  // states; y_0 = x_T_in-1 (or y0) is in z; layer 0's A is [y | ctx | h_0]
   wa = w_phase(w_dec, kxc);  // over the encoder's W: every warp is past its last product
   __syncthreads();
   pr.mark(LP_FEEDBACK);
@@ -596,12 +840,12 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
       pr.mark(LP_STAGE);
     }
     for (int l = 0; l < L; ++l) {
-      layer_tiles(w_layer(wa, kxc, l), b_dec[l], l ? z + kxc + (l - 1) * H : z, (l ? H : kxc) / 16, l);
+      layer_tiles(w_layer(wa, kxc, l), b_dec[l], l ? z + kxc + (l - 1) * H : z, (l ? H : kxc) / P::KS, l);
       __syncthreads();
       pr.mark(LP_BARRIERS);
       publish(l);
       pr.mark(LP_PUBLISH);
-      if (l == L - 1) {  // y = round(h_top) · proj_w + proj_b: out[b, t], and the next step's y in z
+      if (l == L - 1) {  // y = h_top · proj_w + proj_b: out[b, t], and the next step's y in z
         // 8 threads a row: thread part p of row r sums units 32·j + 4·p .. + 3 (j < H / 32), all D
         // outputs at once, then the 8 parts; the part-0 thread writes y. Every row of the block, so
         // that whole warps shuffle; rows past the batch are not written.
@@ -609,18 +853,16 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
         for (int r = tid >> 3; r < rp; r += nthr >> 3) {
           float s[SERVE_MAX_D] = {};
           for (int u = 4 * part; u < H; u += 32) {
-            const uint2 hv = *reinterpret_cast<const uint2*>(est + r * lde + u);
-            const float2 h01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hv.x));
-            const float2 h23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hv.y));
+            const float4 hv = P::get4(est + r * lde + u);
             const float* pw = pwt + u;
 #pragma unroll
             for (int i = 0; i < SERVE_MAX_D; ++i) {
               if (i < D) {
                 const float4 w = *reinterpret_cast<const float4*>(pw + i * H);
-                s[i] = fmaf(h01.x, w.x, s[i]);
-                s[i] = fmaf(h01.y, w.y, s[i]);
-                s[i] = fmaf(h23.x, w.z, s[i]);
-                s[i] = fmaf(h23.y, w.w, s[i]);
+                s[i] = fmaf(hv.x, w.x, s[i]);
+                s[i] = fmaf(hv.y, w.y, s[i]);
+                s[i] = fmaf(hv.z, w.z, s[i]);
+                s[i] = fmaf(hv.w, w.w, s[i]);
               }
             }
           }
@@ -633,7 +875,7 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
               if (part == 0 && r < nrows) {
                 const float y = s[i] + __ldg(proj_b + i);
                 out[((size_t)(p0 + r) * T_out + t) * D + i] = y;
-                z[r * ldz + i] = __float2bfloat16_rn(y);
+                z[r * ldz + i] = P::cvt(y);
               }
             }
           }

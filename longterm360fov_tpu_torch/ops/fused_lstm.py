@@ -34,7 +34,10 @@ them on Hopper and what their design does about that; the bf16 tiers of
 ``peer_context``, ``fused_encode`` and ``fused_serve`` run on the tensor
 cores (``csrc/lstm_mma.cuh``), their W packed once a call by
 :func:`pack_weights` and their blocks chosen by :func:`peer_tc_rows`,
-:func:`encode_tc_rows` and :func:`serve_tc_rows`;
+:func:`encode_tc_rows` and :func:`serve_tc_rows`; so do the f32 tiers of
+``peer_context``, ``fused_serve`` and ``fused_decode``, in three-pass TF32
+(``Tf32Mma``), their W packed by :func:`pack_weights_tf32` and their blocks
+chosen by :func:`peer_tf32_rows` and :func:`serve_tf32_rows`;
 so does the cell on bf16 tensors, W read as stored (nothing packed: the
 cell is launched once a step), its block from :func:`cell_tc_rows`. Each wrapper runs its
 plain version (:func:`fused_serve_reference`, :func:`peer_context_reference`,
@@ -73,7 +76,10 @@ __all__ = [
     "peer_tc_rows",
     "encode_tc_rows",
     "serve_tc_rows",
+    "serve_tf32_rows",
+    "peer_tf32_rows",
     "pack_weights",
+    "pack_weights_tf32",
     "fused_encode",
     "fused_encode_reference",
     "fused_decode",
@@ -238,18 +244,18 @@ def fused_encode_reference(params: Sequence[LSTMParams], xs: torch.Tensor,
     return round_to(_encode_states(params, xs, compute_dtype)[-1][0], compute_dtype)
 
 
-def kernel_rows(hidden: int, layers: int, d: int, ctx_dim: int = 0) -> int:
-    """Batch rows per block: as many as 256 threads of 8 rows x 4 hidden
-    units cover, halved until the block's shared memory (h and c of every
-    layer, and the layer-0 input: ``d`` floats a row, and ``ctx_dim`` more
-    for the decoder's static context) fits. Raises for shapes the kernel
+def kernel_rows(hidden: int, layers: int, d: int) -> int:
+    """Batch rows per block of the f32 FMA kernels (``fused_encode``, the
+    cell): as many as 256 threads of 8 rows x 4 hidden units cover, halved
+    until the block's shared memory (h and c of every layer, and the
+    layer-0 input: ``d`` floats a row) fits. Raises for shapes the kernel
     does not take."""
     if hidden < 32 or hidden % 32:
         raise ValueError(f"the kernel needs hidden % 32 == 0, got {hidden}")
     if not 1 <= layers <= MAX_LAYERS:
         raise ValueError(f"the kernel takes 1..{MAX_LAYERS} layers, got {layers}")
     rows = min(64, _MAX_THREADS // (hidden // _TJ) * _TR)
-    while rows >= _TR and 4 * (2 * layers * hidden + d + ctx_dim) * rows > _SMEM_LIMIT:
+    while rows >= _TR and 4 * (2 * layers * hidden + d) * rows > _SMEM_LIMIT:
         rows //= 2
     if rows < _TR:
         raise ValueError(
@@ -365,22 +371,22 @@ def _launch_serve(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context
                   compute_dtype):
     """Launch the serve kernel on checked CUDA tensors of the tier
     (:func:`_in_tier`): ``context`` None, (B, C), or with ``step_ctx``
-    (B, t_out, C). The bf16 tier packs each phase's W (:func:`pack_weights`)
-    and takes its block from :func:`serve_tc_rows`, the f32 tier from
-    :func:`kernel_rows`."""
+    (B, t_out, C). Each phase's W is packed once a call (bf16:
+    :func:`pack_weights`; f32: :func:`pack_weights_tf32`) and the block
+    comes from :func:`serve_tc_rows` or :func:`serve_tf32_rows`."""
     batch, t_in, d = past_n.shape
     hidden, layers = proj_w.shape[0], len(enc_params)
     ctx_dim = 0 if context is None else context.shape[-1]
     if ctx_dim % 4:
         raise ValueError(f"the kernel reads the context as 16-byte rows: ctx_dim % 4 == 0, got {ctx_dim}")
-    w_enc, w_dec, c_glob = [p.w for p in enc_params], [p.w for p in dec_params], None
     if compute_dtype == torch.bfloat16:
         geo = serve_tc_rows(hidden, layers, d, ctx_dim, step_ctx)
         w_enc, w_dec = [pack_weights(enc_params, d)], [pack_weights(dec_params, d)]
-        if not geo.c_smem:
-            c_glob = torch.empty(-(-batch // geo.rp) * layers * geo.rp * hidden, device=past_n.device)
     else:
-        geo = TcGeom(0, kernel_rows(hidden, layers, d, ctx_dim), 0, 0, False, False, 0)
+        geo = serve_tf32_rows(hidden, layers, d, ctx_dim, step_ctx)
+        w_enc, w_dec = [pack_weights_tf32(enc_params, d)], [pack_weights_tf32(dec_params, d, ctx_dim)]
+    c_glob = None if geo.c_smem else torch.empty(-(-batch // geo.rp) * layers * geo.rp * hidden,
+                                                 device=past_n.device)
     out = torch.empty((batch, t_out, d), device=past_n.device, dtype=torch.float32)
     with torch.cuda.device(past_n.device):
         err = _library().fused_serve_launch(
@@ -399,12 +405,13 @@ fused_serve.launches = fused_serve.launches_bf16 = 0
 
 
 def peer_rows(ctx_dim: int, n_peers: int, *, tile_rows: int = _TR) -> int:
-    """Viewers per block of a peer kernel that holds all K peers of each of
-    its viewers (K·RV rows, a multiple of the thread's ``tile_rows``): as
-    many as 256 threads of ``tile_rows`` rows x 4 units cover, within the
-    block's shared memory. The serve tier's peer-context kernel takes 8 rows
-    a thread, ``ops.lstm_align``'s peer forward 4. Raises for shapes the
-    kernels do not take: above 8 peers at C = 128."""
+    """Viewers per block of an FMA peer kernel that holds all K peers of
+    each of its viewers (K·RV rows, a multiple of the thread's
+    ``tile_rows``): as many as 256 threads of ``tile_rows`` rows x 4 units
+    cover, within the block's shared memory. ``ops.lstm_align``'s peer
+    forward takes 4 rows a thread (the serve tier's peer context has its
+    own blocks: :func:`peer_tf32_rows`, :func:`peer_tc_rows`). Raises for
+    shapes the kernels do not take: above 8 peers at C = 128."""
     if ctx_dim < 32 or ctx_dim % 32:
         raise ValueError(f"the peer kernels need ctx_dim % 32 == 0, got {ctx_dim}")
     if n_peers < 1:
@@ -444,15 +451,24 @@ _SERVE_MAX_D = 4  # csrc/lstm_mma.cuh SERVE_MAX_D: coordinates a token of the bf
 _TC_MAX_ROWS = 256  # rows a block
 
 
-def _tc_smem(peer: bool, rp: int, rows: int, d: int, hidden: int, layers: int, w_res: bool, c_smem: bool) -> int:
+def _tier(f32: bool):
+    """A tier's z: (bytes an element, k-rows a k-step, z's row padding):
+    bf16 on k16 steps, f32 (three-pass TF32) on k8 steps."""
+    return (4, 8, 4) if f32 else (2, 16, 8)
+
+
+def _tc_smem(peer: bool, rp: int, rows: int, d: int, hidden: int, layers: int, w_res: bool, c_smem: bool,
+             f32: bool = False) -> int:
     """``lstm_mma::smem_bytes``: W (when resident), c (when in shared
-    memory), z (bf16 [x padded to k16, h of every layer] a row, 8 more), and
-    the staging (the peer context: f32 h of the ``rows`` real rows and their
-    weights; the encoder: bf16 rows of H + 8)."""
-    kx = -(-d // 16) * 16
-    w = sum(((kx if l == 0 else hidden) + hidden) * 8 * hidden for l in range(layers))
-    s = (w if w_res else 0) + (4 * layers * rp * hidden if c_smem else 0) + 2 * rp * (kx + layers * hidden + 8)
-    return s + (4 * rows * hidden + -(-4 * rows // 16) * 16 if peer else 2 * rp * (hidden + 8))
+    memory), z ([x padded to a k-step, h of every layer] a row, a 16-byte
+    pad more; bf16 or, ``f32``, f32), and the staging (the peer context:
+    f32 h of the ``rows`` real rows and their weights; the encoder: rows of
+    H + 8)."""
+    e, ks, pad = _tier(f32)
+    kx = -(-d // ks) * ks
+    w = sum(((kx if l == 0 else hidden) + hidden) * 4 * hidden * e for l in range(layers))
+    s = (w if w_res else 0) + (4 * layers * rp * hidden if c_smem else 0) + e * rp * (kx + layers * hidden + pad)
+    return s + (4 * rows * hidden + -(-4 * rows // 16) * 16 if peer else e * rp * (hidden + 8))
 
 
 # the layouts of a block, (W resident, c in shared memory), in the order
@@ -523,20 +539,21 @@ def peer_tc_rows(ctx_dim: int, n_peers: int, d: int) -> TcGeom:
 
 
 def _serve_smem(rp: int, d: int, ctx_dim: int, hidden: int, layers: int, w_res: bool, c_smem: bool,
-                step_ctx: bool) -> int:
+                step_ctx: bool, f32: bool = False) -> int:
     """``lstm_mma::serve_smem_bytes``: W (when resident: the larger
-    phase's packed W), c (when in shared memory), z (bf16 [x or y padded to
-    k16 | ctx | h of every layer] a row, 8 more), the staging of the new h
-    (bf16 rows of H + 8), proj_w in f32 and, in the lockstep tier, ctx_t+1
-    in f32."""
-    kx = -(-d // 16) * 16
+    phase's packed W), c (when in shared memory), z ([x or y padded to a
+    k-step | ctx padded to a k-step | h of every layer] a row, a 16-byte pad
+    more; bf16 or, ``f32``, f32), the staging of the new h (rows of H + 8),
+    proj_w in f32 and, in the lockstep tier, ctx_t+1 in f32."""
+    e, ks, pad = _tier(f32)
+    kx, cp = -(-d // ks) * ks, -(-ctx_dim // ks) * ks
 
     def phase(k_in0):
-        return (k_in0 + hidden + (layers - 1) * 2 * hidden) * 8 * hidden
+        return (k_in0 + hidden + (layers - 1) * 2 * hidden) * 4 * hidden * e
 
-    s = max(phase(kx), phase(kx + ctx_dim)) if w_res else 0
+    s = max(phase(kx), phase(kx + cp)) if w_res else 0
     s += 4 * layers * rp * hidden if c_smem else 0
-    s += 2 * rp * (kx + ctx_dim + layers * hidden + 8) + 2 * rp * (hidden + 8) + 4 * d * hidden
+    s += e * rp * (kx + cp + layers * hidden + pad) + e * rp * (hidden + 8) + 4 * d * hidden
     return s + (4 * rp * ctx_dim if step_ctx else 0)
 
 
@@ -579,6 +596,83 @@ def serve_tc_rows(hidden: int, layers: int, d: int, ctx_dim: int = 0, step_ctx: 
     )
 
 
+_TF32_ROWS = (256, 128, 64, 32)  # rows a block, whole 32-row tiles
+
+
+def _tf32_geom(rows_v: int, rp: int, hidden: int, c_smem: bool, smem: int, step_ctx: bool = False) -> TcGeom:
+    """A block of the f32 bodies (``csrc/lstm_mma.cuh`` BodyTile): warp
+    tiles of 32 rows x 8 units on up to 16 warps of 128 registers, but in
+    the lockstep serve kernel (``step_ctx``) 64 rows x 8 units (32 x 16 in
+    a 32-row block) on up to 8 warps of 255 registers; as few rounds of
+    tiles as the warps take and no warp more; W always streamed."""
+    pairs, max_warps = (512, 8) if step_ctx else (256, 16)
+    tiles = rp * hidden // pairs
+    rounds = -(-tiles // max_warps)
+    return TcGeom(rows_v, rp, 4 if step_ctx and rp % 64 == 0 else 2, -(-tiles // rounds), False, c_smem, smem)
+
+
+def serve_tf32_rows(hidden: int, layers: int, d: int, ctx_dim: int = 0, step_ctx: bool = False, *,
+                    rows: int = 0) -> TcGeom:
+    """The block of the f32 serve kernel on three-pass TF32
+    (``csrc/lstm_mma.cuh`` server with Tf32Mma), also that of
+    :func:`fused_decode`: the most rows from :func:`_tc_top` down to 32
+    (``rows``: that many only), c in shared memory where it fits beside z,
+    else in device memory; W streams from L2 (no phase's f32 W fits a block
+    beside its state). The context is padded to whole k8 steps. Raises for
+    shapes the kernel does not take: hidden not a multiple of 32, more than
+    8 layers, a context not of whole 16-byte pieces, more than 4
+    coordinates a token, or a block of 32 rows past a block's shared
+    memory."""
+    if hidden < 32 or hidden % 32:
+        raise ValueError(f"the f32 serve kernel needs hidden % 32 == 0, got {hidden}")
+    if not 1 <= layers <= MAX_LAYERS:
+        raise ValueError(f"the f32 serve kernel takes 1..{MAX_LAYERS} layers, got {layers}")
+    if ctx_dim < 0 or ctx_dim % 4:
+        raise ValueError(f"the f32 serve kernel reads the context as 16-byte rows: ctx_dim % 4 == 0, got {ctx_dim}")
+    if not 1 <= d <= _SERVE_MAX_D:
+        raise ValueError(f"the f32 serve kernel takes 1..{_SERVE_MAX_D} coordinates a token, got d={d}")
+    rps = [rows] if rows else [rp for rp in _TF32_ROWS if rp <= _tc_top(hidden)]
+    if any(rp not in _TF32_ROWS for rp in rps):
+        raise ValueError(f"the f32 serve kernel takes blocks of 32, 64, 128 or 256 rows, got {rows}")
+    for rp in rps:
+        for c_smem in (True, False):
+            smem = _serve_smem(rp, d, ctx_dim, hidden, layers, False, c_smem, step_ctx, f32=True)
+            if smem <= _SMEM_LIMIT:
+                return _tf32_geom(0, rp, hidden, c_smem, smem, step_ctx)
+    least = _serve_smem(min(rps), d, ctx_dim, hidden, layers, False, False, step_ctx, f32=True)
+    raise ValueError(
+        f"d={d}, ctx_dim={ctx_dim}, hidden={hidden}, layers={layers}: the f32 serve kernel's block of "
+        f"{min(rps)} rows needs {least} bytes of shared memory with c in device memory, more than {_SMEM_LIMIT}"
+    )
+
+
+def peer_tf32_rows(ctx_dim: int, n_peers: int, d: int, *, rows: int = 0) -> TcGeom:
+    """The block of the f32 peer context on three-pass TF32
+    (``csrc/lstm_mma.cuh`` encoder with Tf32Mma): all K peers of
+    ``rows_v`` viewers, padded up to whole 32-row tiles, the most viewers
+    up to :func:`_tc_top` rows (``rows`` = 32: one tile), c in shared
+    memory where it fits; W streams from L2. Raises for shapes the kernel
+    does not take: ctx_dim not one of 32, 64, 96, 128, or more than 8
+    peers."""
+    if ctx_dim not in (32, 64, 96, 128):
+        raise ValueError(f"the f32 peer context takes ctx_dim 32, 64, 96 or 128, got {ctx_dim}")
+    if not 1 <= n_peers <= 8:
+        raise ValueError(f"the f32 peer context holds all K peers of a viewer in a block: it takes K = 1..8 peers, "
+                         f"K = {n_peers} peers is more than it takes")
+    if rows not in (0, 32):
+        raise ValueError(f"the f32 peer context picks its own blocks, or 32 rows, got {rows}")
+    top = 32 if rows else _tc_top(ctx_dim) // 32 * 32
+    for rv in range(top // n_peers, 0, -1):
+        rp = -(-rv * n_peers // 32) * 32
+        for c_smem in (True, False):
+            smem = _tc_smem(True, rp, rv * n_peers, d, ctx_dim, 1, False, c_smem, f32=True)
+            if smem <= _SMEM_LIMIT:
+                return _tf32_geom(rv, rp, ctx_dim, c_smem, smem)
+    raise ValueError(f"d={d}, ctx_dim={ctx_dim}: one viewer's K = {n_peers} peers need "
+                     f"{_tc_smem(True, 32, n_peers, d, ctx_dim, 1, False, False, f32=True)} bytes of shared "
+                     f"memory in the f32 peer context's block, more than {_SMEM_LIMIT}")
+
+
 @functools.cache
 def _pack_index(k_rows: int, hidden: int, device: torch.device) -> torch.Tensor:
     """Where each element of one layer's packed W comes from: flat indices
@@ -616,6 +710,45 @@ def pack_weights(params: Sequence[LSTMParams], d: int) -> torch.Tensor:
     return torch.cat(out)
 
 
+@functools.cache
+def _pack_index_tf32(k_rows: int, hidden: int, device: torch.device) -> torch.Tensor:
+    """Where each element of one layer's packed W of the f32 tier comes
+    from: flat indices into its (k_rows, 4H) W (k_rows a multiple of 8), in
+    the order ``csrc/lstm_mma.cuh``'s product_tf32 reads it. mma.sync
+    m16n8k8's TF32 B fragment of lane (g, t) = (lane // 4, lane % 4) is
+    b0 = W[t] and b1 = W[t + 4] of the k8 step at column g of the n8 tile;
+    packed n-tile j holds gate j % 4's columns of unit block j // 4, as in
+    :func:`_pack_index`. Per k8 step, pair p of n-tiles and lane: 4 f32
+    {b0, b1 of tile 2p, b0, b1 of tile 2p + 1}, 16 bytes."""
+    ks = torch.arange(k_rows // 8).view(-1, 1, 1, 1)
+    pair = torch.arange(hidden // 4).view(1, -1, 1, 1)
+    lane = torch.arange(32).view(1, 1, -1, 1)
+    e = torch.arange(4).view(1, 1, 1, -1)
+    k = 8 * ks + lane % 4 + 4 * (e & 1)
+    j = 2 * pair + (e >> 1)
+    col = (j % 4) * hidden + 8 * (j // 4) + lane // 4
+    return (k * 4 * hidden + col).reshape(-1).to(device)
+
+
+def pack_weights_tf32(params: Sequence[LSTMParams], d: int, ctx_dim: int = 0) -> torch.Tensor:
+    """Every layer's W, f32, in the f32 tier's B layout
+    (:func:`_pack_index_tf32`), one flat array, layer after layer; layer
+    0's first ``d`` rows (x, or the serve decoder's y) padded with zero rows
+    to a whole k8 step, then its ``ctx_dim`` context rows (the serve
+    decoder's) padded likewise, then h's."""
+    hidden = params[0].w.shape[1] // 4
+    kx, cp = -(-d // 8) * 8, -(-ctx_dim // 8) * 8
+    out = []
+    for l, p in enumerate(params):
+        w = p.w.float()
+        if l == 0:
+            zeros = w.new_zeros
+            w = torch.cat([w[:d], zeros((kx - d, 4 * hidden)), w[d:d + ctx_dim], zeros((cp - ctx_dim, 4 * hidden)),
+                           w[d + ctx_dim:]])
+        out.append(w.reshape(-1)[_pack_index_tf32(w.shape[0], hidden, w.device)])
+    return torch.cat(out)
+
+
 def peer_context(peer_params: LSTMParams, peer_xs: torch.Tensor,
                  peer_w: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
     """The lockstep tier's peer encoders in one kernel launch: the shared
@@ -641,22 +774,19 @@ def peer_context(peer_params: LSTMParams, peer_xs: torch.Tensor,
 def launch_peer_context(lib, peer_params: LSTMParams, peer_xs, peer_w, compute_dtype) -> torch.Tensor:
     """Launch the peer-context kernel of ``lib`` (a build of
     ``csrc/fused_serve.cu``: the kernels' own, or a probe build) on checked
-    CUDA tensors of the tier → ctx (B, T, C); not counted. The bf16 tier
-    packs W (:func:`pack_weights`) and takes its block from
-    :func:`peer_tc_rows`, the f32 tier from :func:`peer_rows`."""
+    CUDA tensors of the tier → ctx (B, T, C); not counted. W is packed once
+    a call (bf16: :func:`pack_weights`; f32: :func:`pack_weights_tf32`) and
+    the block comes from :func:`peer_tc_rows` or :func:`peer_tf32_rows`."""
     batch, k, t_len, d = peer_xs.shape
     c = peer_params.w.shape[1] // 4
     if batch * k * t_len >= 2**31:
         raise ValueError(f"B·K·T = {batch * k * t_len} does not fit the kernel's 32-bit row index")
     out = torch.empty((batch, t_len, c), device=peer_xs.device, dtype=torch.float32)
-    w, c_glob = peer_params.w, None
     if compute_dtype == torch.bfloat16:
-        geo = peer_tc_rows(c, k, d)
-        w = pack_weights([peer_params], d)
-        if not geo.c_smem:
-            c_glob = torch.empty(-(-batch // geo.rows_v) * geo.rp * c, device=peer_xs.device)
+        geo, w = peer_tc_rows(c, k, d), pack_weights([peer_params], d)
     else:
-        geo = TcGeom(peer_rows(c, k), 0, 0, 0, False, False, 0)
+        geo, w = peer_tf32_rows(c, k, d), pack_weights_tf32([peer_params], d)
+    c_glob = None if geo.c_smem else torch.empty(-(-batch // geo.rows_v) * geo.rp * c, device=peer_xs.device)
     with torch.cuda.device(peer_xs.device):
         err = lib.peer_context_launch(
             peer_xs.data_ptr(), peer_w.data_ptr(), out.data_ptr(), w.data_ptr(), peer_params.b.data_ptr(),
@@ -787,7 +917,9 @@ def fused_decode(
     context=None,  # (B, C) static context
 ) -> torch.Tensor:
     """Whole-horizon autoregressive decode from given states → (B, t_out, D)
-    f32, in one kernel launch: the serve kernel's decoder. Same shapes and
+    f32, in one kernel launch: the f32 serve kernel's decoder on three-pass
+    TF32, its W packed by :func:`pack_weights_tf32` and its block from
+    :func:`serve_tf32_rows`. Same shapes and
     semantics as the JAX ``fused_decode`` (its ``tile_b`` is a TPU tiling
     knob and has no counterpart); bf16 tensors (a ``--bf16`` model's
     weights) are widened to f32, as the TPU kernel's f32 dot widens them.
@@ -813,17 +945,20 @@ def fused_decode(
     _check_tensors(expect, y0.device)
     dec_params = _in_tier(dec_params, torch.float32)
     h0, c0, y0, context, proj_w, proj_b = (_f32(t) for t in (h0, c0, y0, context, proj_w, proj_b))
-    # the kernel reads c0, W and b as 16-byte vectors, the rest by element
-    if not _on_card(y0, [c0, *[t for p in dec_params for t in p]], "fused_decode"):
+    # the kernel reads h0, c0, the context, W and b as 8- or 16-byte vectors, y0 by element
+    vectors = [h0, c0, *([] if context is None else [context]), *[t for p in dec_params for t in p]]
+    if not _on_card(y0, vectors, "fused_decode"):
         return fused_decode_reference(dec_params, proj_w, proj_b, h0, c0, y0, t_out, context)
-    rows = kernel_rows(hidden, layers, d, ctx_dim)
+    geo = serve_tf32_rows(hidden, layers, d, ctx_dim)
+    w = pack_weights_tf32(dec_params, d, ctx_dim)
+    c_glob = None if geo.c_smem else torch.empty(-(-batch // geo.rp) * layers * geo.rp * hidden, device=y0.device)
     out = torch.empty((batch, t_out, d), device=y0.device, dtype=torch.float32)
     with torch.cuda.device(y0.device):
         err = _library().fused_decode_f32(
             h0.data_ptr(), c0.data_ptr(), y0.data_ptr(), None if context is None else context.data_ptr(),
-            out.data_ptr(), _ptrs([p.w for p in dec_params]), _ptrs([p.b for p in dec_params]),
-            proj_w.data_ptr(), proj_b.data_ptr(), batch, t_out, d, ctx_dim, hidden, layers, rows,
-            torch.cuda.current_stream().cuda_stream,
+            out.data_ptr(), _ptrs([w]), _ptrs([p.b for p in dec_params]), proj_w.data_ptr(), proj_b.data_ptr(),
+            batch, t_out, d, ctx_dim, hidden, layers, geo.rp, geo.mt, geo.warps, int(geo.w_res),
+            None if c_glob is None else c_glob.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "fused_decode")
     fused_decode.launches += 1
@@ -964,7 +1099,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_serve_smem_bytes.restype = ctypes.c_longlong
     lib.fused_encode_launch.argtypes = [vp, vp, arr, arr] + [i32] * 10 + [vp, vp]
     lib.peer_context_launch.argtypes = [vp] * 5 + [i32] * 11 + [vp, vp]
-    lib.fused_decode_f32.argtypes = [vp] * 5 + [arr, arr, vp, vp] + [i32] * 7 + [vp]
+    lib.fused_decode_f32.argtypes = [vp] * 5 + [arr, arr, vp, vp] + [i32] * 10 + [vp, vp]
+    lib.fused_serve_tf32_smem_bytes.argtypes = [i32] * 8
+    lib.fused_serve_tf32_smem_bytes.restype = ctypes.c_longlong
+    lib.peer_context_smem_bytes.argtypes = [i32] * 7
+    lib.peer_context_smem_bytes.restype = ctypes.c_longlong
     lib.lstm_cell_launch.argtypes = [vp] * 7 + [i32] * 5 + [vp]
     for f in (lib.fused_serve_launch, lib.fused_encode_launch, lib.peer_context_launch, lib.fused_decode_f32,
               lib.lstm_cell_launch):

@@ -1,8 +1,9 @@
-"""Probe of the PyTorch port's bf16 LSTM kernels on the tensor cores
+"""Probe of the PyTorch port's LSTM kernels on the tensor cores
 (``csrc/lstm_mma.cuh``) on one NVIDIA card: the lockstep tier's peer context
 (``ops.fused_lstm.peer_context``), the whole-sequence encoder
 (``ops.fused_lstm.fused_encode``) and the serve kernel
-(``ops.fused_lstm.fused_serve``, row 1b), all in ``csrc/fused_serve.cu``.
+(``ops.fused_lstm.fused_serve``, rows 1 and 1b; ``fused_decode``, row 3),
+all in ``csrc/fused_serve.cu``.
 
 Run from the root of a checkout: ``python3 scripts/torch_lstm_encode_probe.py``.
 ``--checkout DIR`` imports the port (and its ``chip_smoke.py``) from another
@@ -11,7 +12,7 @@ skips the probe build, which that checkout may lack. Prints, on the card it
 finds (it fails without one):
 
 1. the card's name and power limit, each build's registers and spills, and
-   the SASS of the bf16 kernels (``cuobjdump -sass``) by opcode: HMMA
+   the SASS of the tensor-core kernels (``cuobjdump -sass``) by opcode: HMMA
    (tensor-core products), MUFU (the cell's exp and reciprocal), the FMA
    units' float operations, shared-memory loads and stores, barriers;
 2. both encoders in both compute types against their plain versions at the
@@ -37,7 +38,25 @@ finds (it fails without one):
    ``stacked-ss-crossuser-10s`` (the peer context and the lockstep serve
    kernel) and ``stacked-ss-crossuser`` (the encoder and the static serve
    kernel) at B = 65,536 in bf16 and f32, in turns, one process a checkout,
-   so that a call can run parent, change, change, parent.
+   so that a call can run parent, change, change, parent;
+6. with ``--f32`` only: the f32 tier (three-pass TF32 on ``mma.sync``:
+   ``peer_context_kernel<float>``, ``fused_serve_kernel<*, float>``, the
+   latter also from given states for ``fused_decode``). Unless
+   ``--skip-checks``: the builds' registers and spills, each timed block's
+   dynamic shared memory, the SASS by opcode, and the checks: the peer context and the serve kernel's
+   four tiers (no context, static C = 64 and 128, lockstep K = 7) and
+   ``fused_decode`` against their plain versions at ragged batches in
+   every block the choosers take (64-row tiles, 32-row ones), each repeat
+   bit-equal and each row bit-equal in a permuted batch. Then the times in
+   turns (each a CUDA-event mean): the serve kernel at row 1's four shapes
+   (no context B = 262,144; static C = 128 and 64, L = 2, B = 65,536; the
+   lockstep serve kernel at 65,536) and row 3's (``fused_decode``, B =
+   262,144, L = 1, 30 steps), the peer context at B = 4096 (beside cuDNN's
+   ``nn.LSTM`` in f32, TF32 off) and 65,536, and two serve calls end to
+   end (``seq2seq-tf-30`` at B = 262,144, ``stacked-ss-crossuser-10s`` at
+   65,536). With ``--checkout DIR --skip-checks``, another checkout's f32
+   tier at the same shapes, one process a checkout. Unless ``--self-only``:
+   the f32 probe build's split at row 1's shapes.
 """
 
 import argparse
@@ -53,16 +72,22 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PARTS = ("stage x or ctx", "products", "cell", "publish", "barriers", "feedback")
+PARTS = ("stage x or ctx", "products", "cell", "publish", "barriers", "feedback", "given states")
 # the card tests' shapes: peer context (batch, K, T, C), encoder (rows, layers, hidden)
 PEER_SHAPES = ((1, 7, 20, 128), (13, 3, 20, 128), (4099, 7, 20, 128), (4099, 8, 20, 128), (257, 4, 20, 64),
                (257, 8, 20, 96), (300, 1, 20, 32))
 ENC_SHAPES = ((1, 1, 128), (257, 2, 128), (16387, 1, 128), (4099, 3, 128), (300, 1, 32), (300, 2, 256))
+# row 1's four shapes of the f32 serve kernel: (label, preset, batch)
+F32_SERVE = (("no context B=262144", "seq2seq-tf-30", 262144),
+             ("static context C=128 B=65536", "stacked-ss-crossuser", 65536),
+             ("static context C=64 B=65536", "video-fusion", 65536),
+             ("lockstep serve kernel B=65536", "stacked-ss-crossuser-10s", 65536))
 
 
 def sass_opcodes(lib_path):
-    """The static instruction counts of the bf16 peer context, encoder and
-    serve kernels in a build's SASS: in all, and by opcode class."""
+    """The static instruction counts of the tensor-core peer context,
+    encoder and serve kernels of both tiers in a build's SASS: in all, and
+    by opcode class."""
     from longterm360fov_tpu_torch.ops import _build
 
     sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass", str(lib_path)],
@@ -72,11 +97,12 @@ def sass_opcodes(lib_path):
     counts, fn = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            fn = next((n for n in ("peer_context_kernel", "fused_encode_kernel", "fused_serve_kernel")
-                       if n in ln and "nv_bfloat16" in ln), None)
+            names = ("peer_context_kernel", "fused_encode_kernel", "fused_serve_kernel")
+            fn = next((n for n in names if n in ln), None)
             if fn == "fused_serve_kernel":
                 fn += "<true>" if "ILb1E" in ln else "<false>"
             if fn:
+                fn += "<bf16>" if "nv_bfloat16" in ln else "<f32>"
                 counts[fn] = dict.fromkeys(["all", *classes], 0)
         elif fn and "/*" in ln and ";" in ln:
             op = ln.split("*/")[1].strip().split()[0] if "*/" in ln else ""
@@ -148,6 +174,202 @@ def time_serve(chip_smoke, dev, smi):
     print(f"serve calls at B=65536 (ms a call, CUDA events, in turns; {smi}): {json.dumps(out)}", flush=True)
 
 
+def top_opcodes(lib_path, symbol, n=20):
+    """The ``n`` most frequent SASS opcodes of the kernel whose mangled name
+    holds ``symbol``, with their static counts."""
+    from collections import Counter
+
+    from longterm360fov_tpu_torch.ops import _build
+
+    sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, inside = Counter(), False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = symbol in ln
+        elif inside and "/*" in ln and ";" in ln and "*/" in ln:
+            words = ln.split("*/")[1].split()
+            if words:
+                counts[words[1] if words[0].startswith("@") and len(words) > 1 else words[0]] += 1
+    return dict(counts.most_common(n))
+
+
+def f32_calls(chip_smoke, dev):
+    """The f32 tier's timed calls: "<kernel> <shape>" → a call through the
+    port's wrappers (``fused_lstm._launch_serve`` for the serve kernel
+    alone, on the library that ``fused_lstm._library`` gives when it runs),
+    and cuDNN's ``nn.LSTM`` in f32 beside the peer context at B = 4096."""
+    from longterm360fov_tpu_torch import cli, windows
+    from longterm360fov_tpu_torch.config import get_preset
+    from longterm360fov_tpu_torch.models import cross_user, seq2seq
+    from longterm360fov_tpu_torch.ops import fused_lstm
+    from longterm360fov_tpu_torch.params import params_from_numpy
+
+    f32, calls = torch.float32, {}
+    for label, preset, batch in F32_SERVE:
+        cfg = get_preset(preset)
+        m = cfg.model
+        params = params_from_numpy(cli.bench_params_np(cfg, 0), dev)
+        rng = np.random.default_rng(1)
+        x = windows.normalize_window(chip_smoke.unit_rows(rng, dev, (batch, m.h_in)))[0].contiguous()
+        ctx, step = None, bool(m.peer_align)
+        if m.ctx_dim:  # the lockstep tier's per-step context, or a static one
+            ctx = chip_smoke.randn(rng, dev, (batch, m.h_out, m.ctx_dim) if step else (batch, m.ctx_dim), 0.3)
+        args = (params["encoder"], params["decoder"], params["proj"]["w"], params["proj"]["b"], x, m.h_out, ctx)
+        calls[f"fused_serve {label}"] = (lambda args=args, step=step: fused_lstm._launch_serve(
+            *args, step_ctx=step, compute_dtype=f32))
+        if preset == "seq2seq-tf-30":  # row 3: the decoder alone from given states
+            states = [chip_smoke.randn(rng, dev, (1, batch, m.hidden), 0.3) for _ in range(2)]
+            y0 = chip_smoke.randn(rng, dev, (batch, m.d), 0.1)
+            dargs = (params["decoder"], params["proj"]["w"], params["proj"]["b"], *states, y0, m.h_out)
+            calls[f"fused_decode B={batch} L=1 30 steps"] = lambda dargs=dargs: fused_lstm.fused_decode(*dargs)
+            calls[f"serve call seq2seq-tf-30 B={batch}"] = chip_smoke.serve_call(cfg, params, dev, batch, f32, seq2seq)
+        if step:
+            peer = params["peer_encoder"]
+            for pb in (4096, 65536):
+                pxs, w = chip_smoke.peer_inputs(rng, dev, chip_smoke.randn(rng, dev, (pb, 1, 3)), cfg.n_other_users,
+                                                m.h_out)
+                calls[f"peer_context B={pb}"] = (lambda pxs=pxs, w=w, peer=peer: fused_lstm.peer_context(peer, pxs, w))
+                if pb == 4096:
+                    net = chip_smoke.cudnn_lstm([peer], 3, dev, training=False, dtype=f32)
+                    flat = pxs.reshape(-1, m.h_out, 3)
+
+                    def library(net=net, flat=flat):
+                        with torch.no_grad():
+                            return net(flat)[0]
+                    calls[f"cudnn_f32 B={pb}"] = library
+            calls[f"serve call {preset} B={batch}"] = chip_smoke.serve_call(cfg, params, dev, batch, f32, cross_user)
+    return calls
+
+
+def f32_checks(chip_smoke, dev):
+    """The f32 tier against its plain versions (6. above) → {case: reading}."""
+    from longterm360fov_tpu_torch.ops import fused_lstm
+
+    def gap(a, b):
+        return round((a - b).abs().max().item(), 9)
+
+    def perm_of(n):
+        return torch.randperm(n, generator=torch.Generator().manual_seed(n)).to(dev)
+
+    readings = {}
+    peer_choose, choose = fused_lstm.peer_tf32_rows, fused_lstm.serve_tf32_rows
+    for rows in (0, 32):
+        for batch, k, t, c in PEER_SHAPES:
+            rng = np.random.default_rng(batch + k)
+            peer = chip_smoke.stack(rng, dev, 3, 1, h=c)[0]
+            pxs, w = chip_smoke.peer_inputs(rng, dev, chip_smoke.randn(rng, dev, (batch, 1, 3)), k, t)
+            with mock.patch.object(fused_lstm, "peer_tf32_rows", lambda *a, **kw: peer_choose(*a, rows=rows, **kw)):
+                out = fused_lstm.peer_context(peer, pxs, w)
+                perm = perm_of(batch)
+                readings[f"peer_context B={batch} K={k} T={t} C={c} rows={rows or 'chosen'}"] = {
+                    "gap": gap(out, fused_lstm.peer_context_reference(peer, pxs, w)),
+                    "repeat_bit_equal": torch.equal(out, fused_lstm.peer_context(peer, pxs, w)),
+                    "permuted_bit_equal": torch.equal(out[perm], fused_lstm.peer_context(peer, pxs[perm].contiguous(),
+                                                                                        w[perm].contiguous()))}
+        for batch in (1, 4099):
+            for layers, ctx_dim, tier in ((1, 0, "none"), (2, 64, "static"), (2, 128, "static"), (1, 12, "static"),
+                                          (2, 128, "lockstep")):
+                rng = np.random.default_rng(layers + ctx_dim)
+                enc, dec = chip_smoke.stack(rng, dev, 3, layers), chip_smoke.stack(rng, dev, 3 + ctx_dim, layers)
+                pw, pb = chip_smoke.randn(rng, dev, (128, 3), 0.1), chip_smoke.randn(rng, dev, (3,), 0.1)
+                t_out = 25 if tier == "lockstep" else 30
+                x = chip_smoke.randn(rng, dev, (batch, 30, 3), 0.1)
+                kw = {"context": chip_smoke.randn(rng, dev, (batch, ctx_dim))} if tier == "static" else {}
+                if tier == "lockstep":
+                    peer = chip_smoke.stack(rng, dev, 3, 1, h=ctx_dim)[0]
+                    pxs, w = chip_smoke.peer_inputs(rng, dev, x, 7, t_out)
+                    kw = dict(peer_params=peer, peer_xs=pxs, peer_w=w)
+                with mock.patch.object(fused_lstm, "serve_tf32_rows",
+                                       lambda *a, **k_: choose(*a, rows=rows, **k_)):
+                    def call(x=x, kw=kw):
+                        return fused_lstm.fused_serve(enc, dec, pw, pb, x, t_out, **kw)
+                    out = call()
+                    perm = perm_of(batch)
+                    pkw = {k_: v[perm].contiguous() if k_ != "peer_params" else v for k_, v in kw.items()}
+                    readings[f"fused_serve {tier} B={batch} L={layers} C={ctx_dim} rows={rows or 'chosen'}"] = {
+                        "gap": gap(out, fused_lstm.fused_serve_reference(enc, dec, pw, pb, x, t_out, **kw)),
+                        "repeat_bit_equal": torch.equal(out, call()),
+                        "permuted_bit_equal": torch.equal(out[perm], call(x[perm].contiguous(), pkw))}
+                    if tier == "lockstep":
+                        continue
+                    states = [chip_smoke.randn(rng, dev, (layers, batch, 128), 0.3) for _ in range(2)]
+                    y0 = chip_smoke.randn(rng, dev, (batch, 3), 0.1)
+                    ctx = kw.get("context")
+                    dec_out = fused_lstm.fused_decode(dec, pw, pb, *states, y0, 30, context=ctx)
+                    ref = fused_lstm.fused_decode_reference(dec, pw, pb, *states, y0, 30, ctx)
+                    pst = [s_[:, perm].contiguous() for s_ in states]
+                    readings[f"fused_decode B={batch} L={layers} C={ctx_dim} rows={rows or 'chosen'}"] = {
+                        "gap": gap(dec_out, ref),
+                        "repeat_bit_equal": torch.equal(dec_out, fused_lstm.fused_decode(dec, pw, pb, *states, y0, 30,
+                                                                                         context=ctx)),
+                        "permuted_bit_equal": torch.equal(dec_out[perm], fused_lstm.fused_decode(
+                            dec, pw, pb, *pst, y0[perm].contiguous(), 30,
+                            context=None if ctx is None else ctx[perm].contiguous()))}
+    return readings
+
+
+def f32_mode(chip_smoke, dev, smi, args):
+    """6. above."""
+    from longterm360fov_tpu_torch.config import get_preset
+    from longterm360fov_tpu_torch.ops import _build, fused_lstm
+
+    builds = {}
+    if not args.skip_checks:
+        with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc each, started together
+            jobs = {"fused_serve": pool.submit(_build.build, "fused_serve")}
+            if not args.self_only:
+                jobs["probe"] = pool.submit(_build.build, "fused_serve", ("LSTM_PROBE",))
+            builds = {k: j.result() for k, j in jobs.items()}
+        for k, b in builds.items():
+            print(f"build {k}: {b.seconds:.1f} s; {chip_smoke.ptxas_report(b.log)}", flush=True)
+        print(f"SASS instructions of the tensor-core kernels by opcode: "
+              f"{json.dumps(sass_opcodes(builds['fused_serve'].path))}", flush=True)
+        print(f"the f32 lockstep serve kernel's most frequent SASS opcodes: "
+              f"{json.dumps(top_opcodes(builds['fused_serve'].path, 'fused_serve_kernelILb1EfE'))}", flush=True)
+        blocks = {label: fused_lstm.serve_tf32_rows(m.hidden, m.layers, m.d, m.ctx_dim, bool(m.peer_align))
+                  for label, m in ((label, get_preset(preset).model) for label, preset, _ in F32_SERVE)}
+        blocks["peer_context K=7 C=128"] = fused_lstm.peer_tf32_rows(128, 7, 3)
+        shapes = {k: [g.rp, g.mt, g.warps, g.c_smem, g.smem] for k, g in blocks.items()}
+        print(f"f32 blocks at the timed shapes (rows, m16 tiles a warp tile, warps, c in shared memory, bytes of "
+              f"dynamic shared memory): {json.dumps(shapes)}", flush=True)
+        readings = f32_checks(chip_smoke, dev)
+        worst = {kind: max((r["gap"] for n, r in readings.items() if n.startswith(kind)), default=0.0)
+                 for kind in ("peer_context", "fused_serve", "fused_decode")}
+        equal = all(r["repeat_bit_equal"] and r["permuted_bit_equal"] for r in readings.values())
+        print(f"f32 tier against plain (largest absolute gap; gates: peer_context {chip_smoke.ENC_TOL}, the serve "
+              f"kernel and fused_decode {chip_smoke.KERNEL_TOL}): worst {json.dumps(worst)}, every repeat and "
+              f"permuted batch bit-equal: {equal}; {json.dumps(readings)}", flush=True)
+    calls = f32_calls(chip_smoke, dev)
+    with torch.inference_mode():
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+        iters = {k: 1 if ("65536" in k and "static" not in k) or "serve call" in k else 3 for k in calls}
+        ms = chip_smoke.in_turns(calls, iters)
+    print(f"f32 tier times (ms a call, CUDA events, in turns; port from {args.checkout}; {smi}): {json.dumps(ms)}",
+          flush=True)
+    if args.self_only or args.skip_checks:
+        return
+    del calls
+    torch.cuda.empty_cache()
+    lib = fused_lstm.bind(ctypes.CDLL(str(builds["probe"].path)))
+    buf = (ctypes.c_ulonglong * len(PARTS))()
+    with mock.patch.object(fused_lstm, "_library", lambda: lib):
+        probe_calls = {k: v for k, v in f32_calls(chip_smoke, dev).items()
+                       if k.startswith(("fused_serve", "fused_decode", "peer_context"))}
+        for name, fn in probe_calls.items():
+            fn()
+            torch.cuda.synchronize()
+            lib.fused_serve_probe_read(buf)
+            t_ms = chip_smoke.cuda_ms(fn, 1)
+            lib.fused_serve_probe_read(buf)
+            total = sum(buf)
+            split = {p: round(v / total, 4) for p, v in zip(PARTS, buf) if v}
+            print(f"{name} f32 probe build ({t_ms:.3f} ms a call, {total / 2:.0f} clocks a call summed over the "
+                  f"blocks; thread 0's clock64 a part; {smi}): {json.dumps(split)}", flush=True)
+
+
 def _with_lib(fused_lstm, lib, fn):
     with mock.patch.object(fused_lstm, "_library", lambda: lib):
         return fn()
@@ -158,6 +380,8 @@ def main():
     ap.add_argument("--checkout", default=str(ROOT), help="the checkout whose port to import")
     ap.add_argument("--self-only", action="store_true", help="skip the probe build")
     ap.add_argument("--serve", action="store_true", help="only time the serve calls")
+    ap.add_argument("--f32", action="store_true", help="the f32 tier: checks, times, split")
+    ap.add_argument("--skip-checks", action="store_true", help="with --f32: only the times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch sees no CUDA device; this probe runs only on the card")
@@ -173,6 +397,8 @@ def main():
     bf, f32 = torch.bfloat16, torch.float32
     if args.serve:
         return time_serve(chip_smoke, dev, smi)
+    if args.f32:
+        return f32_mode(chip_smoke, dev, smi, args)
     with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc each, started together
         jobs = {"fused_serve": pool.submit(_build.build, "fused_serve")}
         if not args.self_only:

@@ -1359,6 +1359,164 @@ def test_fused_decode_on_bf16_states_runs_the_f32_kernel():
     assert torch.equal(out, wide)
 
 
+# The f32 serve kernel, fused_decode and the f32 peer context on three-pass
+# TF32 (lstm_mma.cuh's server and encoder with Tf32Mma), in their choosers'
+# blocks (64-row tiles) and in 32-row ones, at ragged batches, in every
+# tier: within the f32 gates (1e-4 on the predictions, 1e-5 on the peer
+# context), each repeat bit-equal and each row bit-equal wherever it sits in
+# the batch.
+
+
+def _same_rows(out, run, batch):
+    """``run(perm)`` (None: the batch as it is) repeats ``out`` bit for bit,
+    and a permuted batch gives each row's answer bit for bit."""
+    perm = torch.randperm(batch, generator=torch.Generator().manual_seed(batch)).cuda()
+    assert torch.equal(out, run(None))
+    assert torch.equal(out[perm], run(perm))
+
+
+def _take(t, perm, dim=0):
+    return t if t is None or perm is None else t.index_select(dim, perm).contiguous()
+
+
+@pytest.fixture
+def f32_rows(monkeypatch):
+    """Force the f32 bodies' blocks to ``rows`` rows (0: the choosers')."""
+    serve, peer = fused_lstm.serve_tf32_rows, fused_lstm.peer_tf32_rows
+
+    def force(rows):
+        monkeypatch.setattr(fused_lstm, "serve_tf32_rows", lambda *a, **kw: serve(*a, rows=rows, **kw))
+        monkeypatch.setattr(fused_lstm, "peer_tf32_rows", lambda *a, **kw: peer(*a, rows=rows, **kw))
+    return force
+
+
+@pytest.mark.parametrize("rows", [0, 32])
+@pytest.mark.parametrize("layers,ctx_dim,tier", [(1, 0, "none"), (2, 0, "none"), (1, 64, "static"),
+                                                 (2, 128, "static"), (2, 64, "static"), (1, 12, "static"),
+                                                 (2, 128, "lockstep"), (1, 128, "lockstep")])
+@pytest.mark.parametrize("batch", [1, 4099])
+def test_f32_lstm_serve_tensor_core_shapes(batch, layers, ctx_dim, tier, rows, f32_rows):
+    f32_rows(rows)
+    geo = fused_lstm.serve_tf32_rows(128, layers, 3, ctx_dim, tier == "lockstep")
+    assert geo.mt == (4 if tier == "lockstep" and not rows else 2) and not geo.w_res
+    rng = np.random.default_rng(layers + ctx_dim)
+    enc, dec = _stack(rng, 3, layers), _stack(rng, 3 + ctx_dim, layers)
+    pw, pb = _cuda(rng, (128, 3), 0.1), _cuda(rng, (3,), 0.1)
+    t_out = 30
+    x = _cuda(rng, (batch, 30, 3), 0.1)
+    kw = {"context": _cuda(rng, (batch, ctx_dim))} if tier == "static" else {}
+    if tier == "lockstep":
+        peer = _stack(rng, 3, 1, hidden=ctx_dim)[0]
+        _, pxs, w = _peer_case(batch, 7, t_out, seed=layers)
+        kw = dict(peer_params=peer, peer_xs=pxs, peer_w=w)
+    wrapper = fused_lstm.fused_serve_peers if tier == "lockstep" else fused_lstm.fused_serve
+    before = wrapper.launches
+    out = fused_lstm.fused_serve(enc, dec, pw, pb, x, t_out, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert out.shape == (batch, t_out, 3)
+    ref = fused_lstm.fused_serve_reference(enc, dec, pw, pb, x, t_out, **kw)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+    def run(perm):
+        pkw = {k: v if k == "peer_params" else _take(v, perm) for k, v in kw.items()}
+        return fused_lstm.fused_serve(enc, dec, pw, pb, _take(x, perm), t_out, **pkw)
+    _same_rows(out, run, batch)
+
+
+@pytest.mark.parametrize("rows", [0, 32])
+@pytest.mark.parametrize("layers,ctx_dim", [(1, 0), (2, 0), (2, 128), (3, 64), (1, 12)])
+@pytest.mark.parametrize("batch", [1, 4099])
+def test_f32_lstm_decode_tensor_core_shapes(batch, layers, ctx_dim, rows, f32_rows):
+    """fused_decode: the f32 serve kernel from given states (h0 into z, c0
+    into the lanes' slots of every tile), the decoder phase alone."""
+    f32_rows(rows)
+    rng = np.random.default_rng(layers + ctx_dim)
+    dec = _stack(rng, 3 + ctx_dim, layers)
+    pw, pb = _cuda(rng, (128, 3), 0.1), _cuda(rng, (3,), 0.1)
+    h0, c0 = _cuda(rng, (layers, batch, 128), 0.3), _cuda(rng, (layers, batch, 128), 0.3)
+    y0, ctx = _cuda(rng, (batch, 3), 0.1), (_cuda(rng, (batch, ctx_dim)) if ctx_dim else None)
+    out = fused_lstm.fused_decode(dec, pw, pb, h0, c0, y0, 30, context=ctx)
+    ref = fused_lstm.fused_decode_reference(dec, pw, pb, h0, c0, y0, 30, ctx)
+    assert (out - ref).abs().max().item() <= 1e-4
+    _same_rows(out, lambda perm: fused_lstm.fused_decode(dec, pw, pb, _take(h0, perm, 1), _take(c0, perm, 1),
+                                                         _take(y0, perm), 30, context=_take(ctx, perm)), batch)
+
+
+@pytest.mark.parametrize("rows", [0, 32])
+@pytest.mark.parametrize("ctx_dim,k,batch", [(128, 7, 4099), (128, 8, 129), (64, 4, 301), (96, 8, 257),
+                                             (32, 3, 300), (128, 1, 70), (32, 8, 1)])
+def test_f32_lstm_peer_context_tensor_core_shapes(ctx_dim, k, batch, rows, f32_rows):
+    f32_rows(rows)
+    rng = np.random.default_rng(ctx_dim + k)
+    peer = _stack(rng, 3, 1, hidden=ctx_dim)[0]
+    pxs = _cuda(rng, (batch, k, 40, 3), 0.5)
+    m = (rng.random((batch, k)) < 0.6).astype(np.float32)
+    m[0] = 0.0
+    w = torch.tensor(m / np.maximum(m.sum(1, keepdims=True), 1.0), device="cuda")
+    before = fused_lstm.peer_context.launches
+    out = fused_lstm.peer_context(peer, pxs, w)
+    torch.cuda.synchronize()
+    assert fused_lstm.peer_context.launches == before + 1
+    assert out.shape == (batch, 40, ctx_dim) and not out[0].any()
+    assert (out - fused_lstm.peer_context_reference(peer, pxs, w)).abs().max().item() <= 1e-5
+    _same_rows(out, lambda perm: fused_lstm.peer_context(peer, _take(pxs, perm), _take(w, perm)), batch)
+
+
+def test_f32_lstm_kernels_have_hmma_and_their_blocks_fit():
+    """Every f32 instance of the serve kernel and the peer context carries
+    HMMA instructions in its SASS (three-pass TF32 on mma.sync), and the
+    library's account of a block's shared memory is the choosers'."""
+    import subprocess
+    from pathlib import Path
+    from longterm360fov_tpu_torch.ops import _build
+    lib_path = _build.build("fused_serve").path
+    sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    hmma, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = next((k for k in ("fused_serve_kernelILb0EfE", "fused_serve_kernelILb1EfE", "peer_context_kernelIfE")
+                       if k in ln), None)
+            if fn:
+                hmma[fn] = 0
+        elif fn and "HMMA" in ln:
+            hmma[fn] += 1
+    assert len(hmma) == 3 and all(hmma.values()), hmma
+    lib = fused_lstm._library()
+    for layers, ctx_dim, step in ((1, 0, False), (2, 128, False), (2, 128, True), (2, 64, False), (1, 12, False)):
+        for rows in (0, 32):
+            g = fused_lstm.serve_tf32_rows(128, layers, 3, ctx_dim, step, rows=rows)
+            assert lib.fused_serve_tf32_smem_bytes(g.rp, 3, ctx_dim, 128, layers, 0, int(g.c_smem), int(step)) == g.smem
+    for c in (32, 64, 96, 128):
+        g = fused_lstm.peer_tf32_rows(c, 7, 3)
+        assert lib.peer_context_smem_bytes(g.rp, g.rows_v * 7, 3, c, 0, int(g.c_smem), 0) == g.smem
+
+
+def test_f32_lstm_tier_refuses_what_it_does_not_take():
+    """The f32 bodies take no shape their choosers refuse: a named
+    ValueError and no launch, never the plain version."""
+    rng = np.random.default_rng(0)
+    enc, dec = _stack(rng, 5, 1), _stack(rng, 5, 1)
+    pw, pb = _cuda(rng, (128, 5)), _cuda(rng, (5,))
+    before = fused_lstm.fused_serve.launches
+    with pytest.raises(ValueError, match="1..4 coordinates a token, got d=5"):
+        fused_lstm.fused_serve(enc, dec, pw, pb, _cuda(rng, (4, 5, 5)), 3)
+    with pytest.raises(ValueError, match="1..4 coordinates a token, got d=5"):
+        fused_lstm.fused_decode(dec, pw, pb, _cuda(rng, (1, 4, 128)), _cuda(rng, (1, 4, 128)), _cuda(rng, (4, 5)), 3)
+    assert fused_lstm.fused_serve.launches == before
+    peer = _stack(rng, 3, 1, hidden=160)[0]
+    with pytest.raises(ValueError, match="ctx_dim 32, 64, 96 or 128, got 160"):
+        fused_lstm.peer_context(peer, _cuda(rng, (2, 3, 4, 3)), torch.ones((2, 3), device="cuda"))
+    wide = [LSTMParams(torch.zeros((3 + 1024, 4096), device="cuda"), torch.zeros(4096, device="cuda")),
+            LSTMParams(torch.zeros((2048, 4096), device="cuda"), torch.zeros(4096, device="cuda"))]
+    wdec = [LSTMParams(torch.zeros((3 + 128 + 1024, 4096), device="cuda"), torch.zeros(4096, device="cuda")),
+            wide[1]]
+    with pytest.raises(ValueError, match="block of 32 rows needs"):
+        fused_lstm.fused_serve(wide, wdec, torch.zeros((1024, 3), device="cuda"), torch.zeros(3, device="cuda"),
+                               _cuda(rng, (2, 4, 3)), 3, context=_cuda(rng, (2, 128)))
+
+
 @pytest.mark.parametrize("hidden", [32, 96, 128, 160, 256])
 @pytest.mark.parametrize("d_in", [3, 128])
 @pytest.mark.parametrize("batch", [16384, 16383])

@@ -198,3 +198,271 @@ def test_serve_tc_rows_refuses_what_it_does_not_take():
         fused_lstm.serve_tc_rows(128, 1, 3, rows=48)
     with pytest.raises(ValueError, match=r"block of 16 rows needs \d+ bytes of shared memory"):
         fused_lstm.serve_tc_rows(1024, 8, 3, 128, True)
+
+
+# ------------------------------------------------------------------ the f32 tier
+# The f32 serve kernel and peer context on three-pass TF32 (lstm_mma.cuh's
+# server and encoder with Tf32Mma): W packed by pack_weights_tf32 in mma
+# m16n8k8's TF32 B-fragment order, z in f32 padded to whole k8 steps.
+
+
+def _packed_product_tf32(z, packed, hidden):
+    """The plain f32 product over the TF32 packed layout: every packed
+    element put back where ``_pack_index_tf32`` says it came from, then z
+    (R, k rows) · W."""
+    k_rows = z.shape[1]
+    w = torch.full((k_rows * 4 * hidden,), float("nan"))
+    idx = fused_lstm._pack_index_tf32(k_rows, hidden, torch.device("cpu"))
+    assert packed.numel() == idx.numel() == k_rows * 4 * hidden
+    assert torch.equal(idx.sort().values, torch.arange(idx.numel()))  # a permutation: every element once
+    w[idx] = packed
+    return z.double() @ w.reshape(k_rows, 4 * hidden).double()
+
+
+@pytest.mark.parametrize("hidden", [32, 128, 256])
+def test_packed_tf32_layer_is_w_and_its_product_the_f32_gate_product(hidden):
+    """Layer 0 ([x, h], d = 3 padded to one k8 step) and layer 1 ([h_0,
+    h_1]) of a stack packed by pack_weights_tf32: read back through the
+    fragment map, each layer is W itself (its x rows padded with zeros), and
+    the product over the packed layout is [x, h] @ W."""
+    rng = np.random.default_rng(hidden)
+    d, rows = 3, 37
+    ps = [_layer(rng, d, hidden), _layer(rng, hidden, hidden)]
+    packed = fused_lstm.pack_weights_tf32(ps, d)
+    n0 = (8 + hidden) * 4 * hidden
+    assert packed.dtype == torch.float32 and packed.numel() == n0 + 2 * hidden * 4 * hidden
+    back = torch.empty(n0)
+    back[fused_lstm._pack_index_tf32(8 + hidden, hidden, torch.device("cpu"))] = packed[:n0]
+    want = torch.cat([ps[0].w[:d], torch.zeros(8 - d, 4 * hidden), ps[0].w[d:]])
+    assert torch.equal(back.reshape(8 + hidden, 4 * hidden), want)
+    x = torch.tensor(rng.normal(size=(rows, d)).astype(np.float32))
+    h0, h1 = (torch.tensor(rng.uniform(-1, 1, size=(rows, hidden)).astype(np.float32)) for _ in range(2))
+    z0 = torch.cat([x, torch.zeros(rows, 8 - d), h0], dim=1)
+    ref0 = torch.cat([x, h0], dim=1).double() @ ps[0].w.double()
+    torch.testing.assert_close(_packed_product_tf32(z0, packed[:n0], hidden), ref0, rtol=1e-12, atol=1e-12)
+    ref1 = torch.cat([h0, h1], dim=1).double() @ ps[1].w.double()
+    got1 = _packed_product_tf32(torch.cat([h0, h1], dim=1), packed[n0:], hidden)
+    torch.testing.assert_close(got1, ref1, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("ctx_dim", [0, 12, 64, 128])
+def test_packed_tf32_decoder_layer0_is_the_f32_gate_product(ctx_dim):
+    """The f32 serve decoder's layer 0 reads z's row [y padded to a k8
+    step | ctx padded to a k8 step | h_0] as one run: against
+    pack_weights_tf32's layer 0 of its W ((d + C + H) x 4H), the product
+    over the packed layout equals [y, ctx, h] @ W (C = 12: four zero rows
+    after the context)."""
+    rng = np.random.default_rng(ctx_dim)
+    d, hidden, rows = 3, 128, 29
+    cp = -(-ctx_dim // 8) * 8
+    layer = _layer(rng, d + ctx_dim, hidden)
+    packed = fused_lstm.pack_weights_tf32([layer], d, ctx_dim)
+    assert packed.numel() == (8 + cp + hidden) * 4 * hidden
+    y = torch.tensor(rng.normal(size=(rows, d)).astype(np.float32))
+    ctx = torch.tensor(rng.normal(size=(rows, ctx_dim)).astype(np.float32))
+    h = torch.tensor(rng.uniform(-1, 1, size=(rows, hidden)).astype(np.float32))
+    z = torch.cat([y, torch.zeros(rows, 8 - d), ctx, torch.zeros(rows, cp - ctx_dim), h], dim=1)
+    got = _packed_product_tf32(z, packed, hidden)
+    torch.testing.assert_close(got, torch.cat([y, ctx, h], dim=1).double() @ layer.w.double(), rtol=1e-12, atol=1e-12)
+
+
+def test_pack_tf32_puts_a_tiles_gates_together():
+    """Per k8 step and pair of n-tiles, lane (g, t)'s 16 bytes are W[t] and
+    W[t + 4] at column g of gate i (n-tile 0 of unit block 0), then the same
+    rows at column g of gate f (n-tile 1)."""
+    hidden = 64
+    w = torch.arange(19 * 4 * hidden, dtype=torch.float32).reshape(19, 4 * hidden)
+    packed = fused_lstm.pack_weights_tf32([LSTMParams(w, torch.zeros(4 * hidden))], 3)
+    wk = torch.cat([w[:3], torch.zeros(5, 4 * hidden), w[3:]])  # x padded to a k8 step
+    for lane in (0, 5, 31):
+        g, t = lane // 4, lane % 4
+        want = [wk[t, g], wk[t + 4, g], wk[t, hidden + g], wk[t + 4, hidden + g]]
+        assert torch.equal(packed[lane * 4:(lane + 1) * 4], torch.stack(want))
+    # pair 1 of k-step 0: unit block 0's gates g and o; k-step 1 starts H / 4 pairs x 32 lanes later
+    assert torch.equal(packed[32 * 4:32 * 4 + 4], torch.stack([wk[0, 2 * hidden], wk[4, 2 * hidden],
+                                                                  wk[0, 3 * hidden], wk[4, 3 * hidden]]))
+    k1 = hidden // 4 * 32 * 4
+    assert torch.equal(packed[k1:k1 + 2], torch.stack([wk[8, 0], wk[12, 0]]))
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: x rounded to 10 mantissa bits, to nearest, ties
+    away from zero (on the magnitude's bits), as f32."""
+    b = np.asarray(x, np.float32).view(np.int32)
+    return ((b + np.int32(0x1000)) & np.int32(-0x2000)).view(np.float32)
+
+
+def _truncate_tf32(x):
+    """x as mma reads an f32 register as a TF32 operand: its 13 low
+    mantissa bits dropped."""
+    return (np.asarray(x, np.float32).view(np.int32) & np.int32(-0x2000)).view(np.float32)
+
+
+def _split(x):
+    """lstm_mma.cuh's split_fast as the tensor cores read it: hi = x with
+    its 13 low mantissa bits cleared, lo = x - hi (exact in f32), read as
+    TF32 (its low bits dropped)."""
+    hi = _truncate_tf32(x)
+    return hi, _truncate_tf32((x - hi).astype(np.float32))
+
+
+def _toward_zero_f32(x):
+    """f64 values rounded toward zero to f32."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    return np.where(over, np.nextafter(f, np.float32(0)), f)
+
+
+def _three_pass(a, b, chunk):
+    """The f32 tier's product as the tensor cores compute it: a (R, K) and
+    b (K, N) split into TF32 hi and lo (:func:`_split`); per k8 step the
+    three mma a_lo·b_hi, a_hi·b_lo, a_hi·b_hi (a_lo·b_lo dropped), each
+    adding the exact sum of its 8 products to the accumulator and rounding
+    toward zero; each chunk of ``chunk`` k8 steps from fresh accumulators,
+    added to the f32 sum with rounding to nearest."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    total = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for c0 in range(0, a.shape[1], 8 * chunk):
+        acc = np.zeros_like(total)
+        for k0 in range(c0, min(c0 + 8 * chunk, a.shape[1]), 8):
+            s = slice(k0, k0 + 8)
+            for x, y in ((al, bh), (ah, bl), (ah, bh)):
+                acc = _toward_zero_f32(acc.astype(np.float64) + x[:, s].astype(np.float64) @ y[s].astype(np.float64))
+        total = (total + acc).astype(np.float32)
+    return total
+
+
+def test_split_keeps_21_bits_and_hi_is_tf32():
+    """hi is a TF32 value and x - hi is exact; hi + tf32(lo) is within
+    2^-21 of x, relative."""
+    x = np.random.default_rng(0).normal(size=100000).astype(np.float32) * 10.0 ** np.arange(-5, 5).repeat(10000)
+    hi, lo = _split(x)
+    assert np.array_equal(hi, _truncate_tf32(hi)) and np.array_equal(lo, _truncate_tf32(lo))
+    assert np.array_equal((x - hi).astype(np.float64), x.astype(np.float64) - hi.astype(np.float64))
+    assert (np.abs(hi.astype(np.float64) + lo - x) <= 2.0 ** -21 * np.abs(x)).all()
+
+
+@pytest.mark.parametrize("preset,layer,chunk", [("stacked-ss-crossuser-10s", "decoder 0", 8),
+                                                ("stacked-ss-crossuser-10s", "peer", 4),
+                                                ("seq2seq-tf-30", "encoder 0", 4)])
+def test_three_pass_tf32_product_lands_within_its_bound(preset, layer, chunk):
+    """The emulated three-pass product (:func:`_split`, a_lo·b_lo dropped,
+    truncating mma sums in chunks of 4 k8 steps, TF32_CHUNK, or 8 in the
+    lockstep serve kernel, TF32_CHUNK_STEP_CTX) of a preset layer's
+    [y | ctx | h] or [x | h] rows with its W stays within its stated bound
+    of the f64 product, of Σ_k |a_k|·|b_k|: 2^-19 for the split and the
+    dropped term, 3·chunk·2^-23 for a chunk's truncating mma, 2^-24 for
+    each chunk's add. A one-pass product (a_hi·b_hi alone) does not."""
+    from longterm360fov_tpu_torch.config import get_preset
+    m = get_preset(preset).model
+    rng = np.random.default_rng(7)
+    k_in = {"decoder 0": m.d + m.ctx_dim, "peer": m.d, "encoder 0": m.d}[layer]
+    hidden = m.ctx_dim if layer == "peer" else m.hidden
+    w = _layer(rng, k_in, hidden).w.numpy()
+    z = np.concatenate([rng.normal(size=(64, m.d)), rng.normal(size=(64, k_in - m.d)),
+                        rng.uniform(-1, 1, size=(64, hidden))], axis=1).astype(np.float32)
+    exact = z.astype(np.float64) @ w.astype(np.float64)
+    scale = np.abs(z).astype(np.float64) @ np.abs(w).astype(np.float64)
+    bound = 2.0 ** -19 + 3 * chunk * 2.0 ** -23 + -(-z.shape[1] // (8 * chunk)) * 2.0 ** -24
+    got = _three_pass(z, w, chunk)
+    assert (np.abs(got - exact) <= bound * scale).all()
+    one_pass = _truncate_tf32(z).astype(np.float64) @ _truncate_tf32(w).astype(np.float64)
+    assert (np.abs(one_pass - exact) > bound * scale).any()
+
+
+@pytest.mark.parametrize("preset,want", [
+    ("seq2seq-tf-30", (64, 2, 16, False, True, 104960)),
+    ("stacked-ss-crossuser", (64, 2, 16, False, True, 203264)),
+    ("stacked-ss-crossuser-10s", (64, 4, 8, False, False, 170496)),  # c in device memory
+    ("video-fusion", (64, 2, 16, False, True, 186880)),
+])
+def test_serve_tf32_rows_at_the_preset_shapes(preset, want):
+    """Every serving preset's shape in the f32 tier: 64-row blocks, W from
+    L2; 16 warps of 32 x 8 tiles, but the lockstep serve kernel's 8 warps
+    of 64 x 8 tiles; c in shared memory but in the lockstep tier (z, the
+    staging and ctx_t+1 in f32 leave it no room)."""
+    from longterm360fov_tpu_torch.config import get_preset
+    m = get_preset(preset).model
+    step = bool(m.peer_align)
+    geo = fused_lstm.serve_tf32_rows(m.hidden, m.layers, m.d, m.ctx_dim, step)
+    assert geo[1:] == want
+    assert geo.smem == fused_lstm._serve_smem(geo.rp, m.d, m.ctx_dim, m.hidden, m.layers, False, geo.c_smem, step,
+                                              f32=True) <= SMEM
+    assert not fused_lstm._serve_smem(64, m.d, m.ctx_dim, m.hidden, m.layers, False, True, step, f32=True) <= SMEM \
+        if step else geo.c_smem
+
+
+@pytest.mark.parametrize("layers", range(1, 9))
+@pytest.mark.parametrize("ctx_dim", [0, 12, 64, 128])
+def test_serve_tf32_rows_takes_every_depth(layers, ctx_dim):
+    """L = 1..8 at C = 0, 12, 64, 128, in both context tiers: 64-row blocks
+    where z and the staging fit with c in device memory, else 32-row ones,
+    as also where asked for, within a block's shared memory; 16 warps of
+    32 x 8 tiles, the lockstep serve kernel 8 warps of 64 x 8 (32 x 16 in
+    32 rows)."""
+    for step in (False, True) if ctx_dim else (False,):
+        geo = fused_lstm.serve_tf32_rows(128, layers, 3, ctx_dim, step)
+        rp = 64 if fused_lstm._serve_smem(64, 3, ctx_dim, 128, layers, False, False, step, f32=True) <= SMEM else 32
+        want = (rp, rp // 16, 8) if step else (rp, 2, 16)
+        assert (geo.rp, geo.mt, geo.warps, geo.w_res) == (*want, False) and geo.smem <= SMEM
+        small = fused_lstm.serve_tf32_rows(128, layers, 3, ctx_dim, step, rows=32)
+        assert (small.rp, small.mt, small.warps) == (32, 2, 8 if step else 16) and small.smem <= SMEM
+    narrow = fused_lstm.serve_tf32_rows(32, layers, 3, ctx_dim)  # more rows a block: up to 256 at H = 32
+    assert narrow.rp in (256, 128, 64) and (narrow.mt, narrow.warps) == (2, 16)
+    assert layers > 1 or narrow.rp == 256
+
+
+def test_serve_tf32_rows_refuses_what_it_does_not_take():
+    with pytest.raises(ValueError, match="hidden % 32 == 0, got 48"):
+        fused_lstm.serve_tf32_rows(48, 1, 3)
+    with pytest.raises(ValueError, match="1..8 layers, got 9"):
+        fused_lstm.serve_tf32_rows(128, 9, 3)
+    with pytest.raises(ValueError, match="ctx_dim % 4 == 0, got 6"):
+        fused_lstm.serve_tf32_rows(128, 1, 3, 6)
+    with pytest.raises(ValueError, match="1..4 coordinates a token, got d=5"):
+        fused_lstm.serve_tf32_rows(128, 1, 5)
+    with pytest.raises(ValueError, match="blocks of 32, 64, 128 or 256 rows, got 16"):
+        fused_lstm.serve_tf32_rows(128, 1, 3, rows=16)
+    with pytest.raises(ValueError, match=r"d=3, ctx_dim=128, hidden=1024, layers=2: .* block of 32 rows needs "
+                                         r"\d+ bytes of shared memory"):
+        fused_lstm.serve_tf32_rows(1024, 2, 3, 128, True)
+
+
+@pytest.mark.parametrize("ctx_dim", [32, 64, 96, 128])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_peer_tf32_rows(ctx_dim, k):
+    """All K peers of whole viewers in blocks of whole 32-row tiles (up to
+    256 rows at C = 32), no room for another viewer, W streamed, c in shared
+    memory, as few rounds of 32 x 8 tiles as 16 warps take; one 32-row
+    tile where asked for."""
+    for rows in (0, 32):
+        geo = fused_lstm.peer_tf32_rows(ctx_dim, k, 3, rows=rows)
+        real = geo.rows_v * k
+        assert geo.rp % 32 == 0 and geo.mt == 2 and real <= geo.rp < real + 32
+        top = 32 if rows else fused_lstm._tc_top(ctx_dim) // 32 * 32
+        assert geo.rp <= top and real + k > top  # the most whole viewers the aim takes
+        assert not geo.w_res and geo.c_smem
+        assert geo.smem == fused_lstm._tc_smem(True, geo.rp, real, 3, ctx_dim, 1, False, True, f32=True) <= SMEM
+        tiles = geo.rp * ctx_dim // 256
+        assert 1 <= geo.warps <= 16 and -(-tiles // geo.warps) == -(-tiles // 16)
+        assert geo.warps == 1 or -(-tiles // (geo.warps - 1)) > -(-tiles // geo.warps)
+
+
+def test_peer_tf32_rows_at_the_serving_shape():
+    """stacked-ss-crossuser-10s: K = 7 peers of C = 128, 9 viewers in 64
+    rows, 16 warps of two 32 x 8 tiles each, 101,120 bytes."""
+    assert fused_lstm.peer_tf32_rows(128, 7, 3) == fused_lstm.TcGeom(9, 64, 2, 16, False, True, 101120)
+
+
+def test_peer_tf32_rows_refuses_what_it_does_not_take():
+    with pytest.raises(ValueError, match="ctx_dim 32, 64, 96 or 128, got 160"):
+        fused_lstm.peer_tf32_rows(160, 7, 3)
+    with pytest.raises(ValueError, match="ctx_dim 32, 64, 96 or 128, got 48"):
+        fused_lstm.peer_tf32_rows(48, 7, 3)
+    for k in (0, 9, 64):
+        with pytest.raises(ValueError, match=f"K = {k} peers"):
+            fused_lstm.peer_tf32_rows(128, k, 3)
+    with pytest.raises(ValueError, match="or 32 rows, got 16"):
+        fused_lstm.peer_tf32_rows(128, 7, 3, rows=16)
+    with pytest.raises(ValueError, match=r"d=20000, ctx_dim=128: one viewer's K = 7 peers need \d+ bytes"):
+        fused_lstm.peer_tf32_rows(128, 7, 20000)
