@@ -369,7 +369,9 @@ HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
 # lockstep serve kernel at 65,536) on the FMA units; the f32 serve kernel
 # (row 1: the same shapes and static C = 64 at 65,536), the decoder from
 # given states (row 3, B = 262,144) and the f32 peer context (B = 4096 and
-# 65,536) on the FMA units
+# 65,536) on the FMA units; the scheduled-sampling decoder's backward (row 6
+# at B = 4096, T = 30; row 7 at the 10 s shape) and the lockstep peer forward
+# (row 7) on the FMA units, both compute tiers
 BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_decode_dw": 3.920,
           "ss_decode_dw_bf16": 3.777, "aligned_dec_dw": 20.739, "aligned_dec_dw_bf16": 20.681,
           "aligned_peer_dw": 20.808, "aligned_peer_dw_bf16": 21.833, "fused_encode_tokens_bf16": 19.151,
@@ -384,7 +386,9 @@ BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_dec
           "fused_ar_decode_shared": 129.154, "fused_serve_bf16": 92.864, "fused_serve_ctx_bf16": 72.126,
           "fused_serve_peers_bf16": 245.214, "fused_serve": 72.896, "fused_serve_ctx": 53.519,
           "fused_serve_ctx C=64": 50.467, "fused_serve_peers": 192.240, "fused_decode": 35.809, "peer_context": 14.098,
-          "peer_context B=65536": 219.967}
+          "peer_context B=65536": 219.967, "ss_decode_bwd": 5.706, "ss_decode_bwd_bf16": 5.499,
+          "aligned_dec_bwd": 19.415, "aligned_dec_bwd_bf16": 19.800, "aligned_peer_fwd": 19.271,
+          "aligned_peer_fwd_bf16": 19.159}
 DW_NAMES = [n for n in BEFORE if n.rsplit("_bf16", 1)[0].endswith("_dw")]
 # the cell kernel against lstm_cell: one step, exact f32 FMAs in another order
 # (tests/test_fused_lstm.py's bound for the TPU cell)
@@ -2312,6 +2316,57 @@ def report_lstm_mma(builds):
                              f"{hmma}")
 
 
+def report_train_mma(builds):
+    """The 10 s training recurrences on the tensor cores: every instance of
+    the decoder backward (ss_bwd_kernel<RT, STEP_CTX, P>: lstm_ss.cu's static
+    context, lstm_align.cu's per-step one) and of the lockstep peer forward
+    (align_peer_fwd_kernel<RT, P, MT>, lstm_mma.cuh's encoder): registers,
+    spills and shared memory (ptxas; the dynamic shared memory of the
+    training shapes' blocks, from the choosers, which must equal the
+    library's) and the count of HMMA instructions in each one's SASS; fails
+    if one has none: their products run on mma.sync in both compute tiers."""
+    hmma = {}
+    for source, kernel in (("lstm_ss", "ss_bwd_kernel"), ("lstm_align", "ss_bwd_kernel"),
+                           ("lstm_align", "align_peer_fwd_kernel")):
+        sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
+                               str(builds[source].path)], capture_output=True, text=True, check=True).stdout
+        fn = None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                fn = (source, ln.split("Function :")[1].strip()) if kernel in ln else None
+                if fn:
+                    hmma[fn] = 0
+            elif fn and "HMMA" in ln:
+                hmma[fn] += 1
+    for (source, sym), n in sorted(hmma.items()):
+        rt = "bf16" if "I13__nv_bfloat16" in sym.split("kernel")[1][:20] else "f32"
+        tier = "bf16" if "Bf16Mma" in sym else "f32 (three-pass TF32)"
+        name = "align_peer_fwd_kernel" if "align_peer_fwd" in sym else \
+            f"ss_bwd_kernel<{'step' if 'Lb1E' in sym else 'static'} ctx>"
+        print(f"{source}: {name}<RT {rt}, {tier}{', MT 1' if 'Li1E' in sym else ''}>: {n} HMMA instructions in "
+              f"its SASS; {json.dumps(ptxas_resources(source, (sym,)))}", flush=True)
+    ss_lib, al_lib = lstm_ss._library(), lstm_align._library()
+    blocks = {}
+    for cd in (F32, BF):
+        for name, (c, step) in (("stacked-ss-crossuser", (128, False)), ("stacked-ss-crossuser-10s", (128, True)),
+                                ("video-fusion", (64, False))):
+            g = lstm_ss.bwd_block(128, 2, 3, c, cd, step)
+            if ss_lib.ss_bwd_smem(128, 2, 3, c, int(step), g.nbuf, g.stages, int(cd == BF)) != g.smem:
+                raise AssertionError(f"the decoder backward's block at {name}: the library and bwd_block disagree")
+            blocks[f"ss_bwd {name} {str(cd)[6:]}"] = [g.rows, g.warps, g.nbuf, g.stages, g.smem]
+        g = lstm_align.peer_fwd_block(128, 7, 3, cd)
+        if al_lib.align_peer_fwd_smem(3, 128, 7, g.rows_v, g.rp, g.mt, g.warps, int(g.w_res), int(g.c_smem),
+                                      int(cd == BF)) != g.smem:
+            raise AssertionError("the peer forward's block: the library and peer_fwd_block disagree")
+        blocks[f"peer_fwd K=7 {str(cd)[6:]}"] = [g.rp, g.warps, g.w_res, g.smem]
+    print(f"the training recurrences' blocks at the training shapes (ss_bwd: rows, warps, A buffers, ring stages, "
+          f"bytes of dynamic shared memory; peer_fwd: rows, warps, W resident, bytes): {json.dumps(blocks)}",
+          flush=True)
+    if len(hmma) != 14 or not all(hmma.values()):
+        raise AssertionError(f"a training recurrence instance has no HMMA instruction, its products off the tensor "
+                             f"cores: {hmma}")
+
+
 def report_decode_mma(builds):
     """The transformer decode in both tiers (row 9, f32 on three-pass TF32:
     transformer_decode_f32mma.cuh; row 9c, bf16: transformer_decode_mma.cuh)
@@ -2602,7 +2657,8 @@ def time_ss_kernels(dev, smi):
         "ss_decode_fwd": (stack_flop(TRAIN_B, 30, ins, 128) + proj,
                           [a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], a["ctx"], a["proj_w"],
                            a["proj_b"], *w], [ys, *res_all]),
-        "ss_decode_bwd": (stack_flop(TRAIN_B, 30, ins, 128) + proj,
+        # dgates · Wᵀ on the tensor cores (three-pass TF32), dy · proj_wᵀ on the FMA units
+        "ss_decode_bwd": ({TF32X3_FLOPS: stack_flop(TRAIN_B, 30, ins, 128), F32_FLOPS: proj},
                           [a["dys"], a["c0"], a["coins"], a["proj_w"], *w, *res.cs, *res.gs],
                           [*dgates, *bw[1:6], bw[6]]),
         "ss_decode_dw": (stack_flop(TRAIN_B, 30, ins, 128) + 2 * TRAIN_B * 30 * 4 * 128 * layers,
@@ -2631,13 +2687,18 @@ def time_ss_kernels(dev, smi):
     }
     for name, fns in bcalls.items():
         fns["f32_kernel"] = calls[name[:-5]]["kernel"]
-    time_bf16_tier(bcalls, {n: work[n[:-5]] for n in bcalls}, [p.w for p in ps] + [a["proj_w"]],
+    time_bf16_tier(bcalls, {n: (flop_of(work[n[:-5]][0]), *work[n[:-5]][1:]) for n in bcalls},
+                   [p.w for p in ps] + [a["proj_w"]],
                    {"plain": 3, "kernel": 10, "f32_kernel": 10, "library": 10},
                    f"ss_decode bf16-compute kernels alone (ms, B={TRAIN_B}, L={layers}, C={ctx_dim}, bf16 "
                    f"residuals, Bernoulli coins, CUDA events, against the f32-compute kernels; library: one "
                    f"cuBLAS bmm / matmul on bf16 operands; none computes a recurrence with feedback)", smi)
     for name, fns in (("ss_decode_dproj", calls["ss_decode_dproj"]), ("ss_decode_dproj_bf16", bcalls["ss_decode_dproj_bf16"])):
         report_redesign(name, smi, device={w: device_ms(fns[w], 20) for w in ("kernel", "library")})
+    report_redesign("ss_decode_bwd", smi, fma_bound=bound(flop_of(work["ss_decode_bwd"][0]),
+                                                          *work["ss_decode_bwd"][1:])[0],
+                    no_library="none (feedback)")
+    report_redesign("ss_decode_bwd_bf16", smi, no_library="none (feedback)")
 
 
 def time_aligned_kernels(dev, smi):
@@ -2706,11 +2767,13 @@ def time_aligned_kernels(dev, smi):
     w = [x for p in ps for x in p]
     res_all = res.hs + res.cs + res.gs
     work = {
-        "aligned_peer_fwd": (peer_pass + 2 * rows * t * c, [pxs, pwt, *peer], [php, pcp, ctx]),
+        # the gates on the tensor cores (three-pass TF32), the context sum on the FMA units
+        "aligned_peer_fwd": ({TF32X3_FLOPS: peer_pass, F32_FLOPS: 2 * rows * t * c}, [pxs, pwt, *peer],
+                             [php, pcp, ctx]),
         "aligned_dec_fwd": (stack_flop(TRAIN_B, t, ins, 128) + proj,
                             [a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], ctx, a["proj_w"],
                              a["proj_b"], *w], [ys, *res_all]),
-        "aligned_dec_bwd": (stack_flop(TRAIN_B, t, ins, 128) + proj,
+        "aligned_dec_bwd": ({TF32X3_FLOPS: stack_flop(TRAIN_B, t, ins, 128), F32_FLOPS: proj},
                             [a["dys"], a["c0"], a["coins"], a["proj_w"], *w, *res.cs, *res.gs],
                             [*dgates, *bw[1:]]),
         # the products on the tensor cores, three-pass TF32, but for the gates'
@@ -2751,7 +2814,7 @@ def time_aligned_kernels(dev, smi):
         bcalls[name]["plain"] = fn
     bcalls["aligned_dec_dw_bf16"]["library"] = dw_library(zs, dgates, BF)
     bcalls["aligned_peer_dw_bf16"]["library"] = lambda: zpb.t() @ dpg2b
-    time_bf16_tier(bcalls, {n: (flop.get(n[:-5], work[n[:-5]][0]), *work[n[:-5]][1:]) for n in bcalls},
+    time_bf16_tier(bcalls, {n: (flop.get(n[:-5], flop_of(work[n[:-5]][0])), *work[n[:-5]][1:]) for n in bcalls},
                    [p.w for p in ps] + [peer.w, a["proj_w"]],
                    {"plain": 1, "kernel": 3, "f32_kernel": 3, "library": 3},
                    f"aligned_ss_decode bf16-compute kernels alone (ms, B={TRAIN_B}, K={k}, T={t}, L={layers}, "
@@ -2760,6 +2823,13 @@ def time_aligned_kernels(dev, smi):
                    f"feedback)", smi)
     report_redesign("aligned_peer_bwd", smi, fma_bound=2 * peer_pass / F32_FLOPS * 1e3)
     report_redesign("aligned_peer_bwd_bf16", smi)
+    report_redesign("aligned_peer_fwd", smi, fma_bound=bound(flop_of(work["aligned_peer_fwd"][0]),
+                                                             *work["aligned_peer_fwd"][1:])[0])
+    report_redesign("aligned_peer_fwd_bf16", smi)
+    report_redesign("aligned_dec_bwd", smi, fma_bound=bound(flop_of(work["aligned_dec_bwd"][0]),
+                                                            *work["aligned_dec_bwd"][1:])[0],
+                    no_library="none (feedback)")
+    report_redesign("aligned_dec_bwd_bf16", smi, no_library="none (feedback)")
 
 
 # --------------------------------------------------------------- video-fusion: features
@@ -4159,6 +4229,7 @@ def main():
     report_peer_bwd(builds)
     report_lstm_mma(builds)
     report_decode_mma(builds)
+    report_train_mma(builds)
 
     phase("3 kernels vs plain")
     # 3. every kernel against its plain version at full width; the f32

@@ -53,6 +53,10 @@ __device__ __forceinline__ float ldw1(const __nv_bfloat16* p) {
       __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
 }
 
+// the logistic function in exact f32 (expf and an IEEE division, no fast
+// math), shared by every LSTM cell of the kernels
+__device__ __forceinline__ float sigmoid_f32(float x) { return 1.0f / (1.0f + expf(-x)); }
+
 // one value stored in ST (f32, or bf16 rounded to nearest even)
 __device__ __forceinline__ void st1(float* p, float v) { *p = v; }
 

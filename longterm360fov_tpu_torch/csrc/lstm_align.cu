@@ -11,13 +11,16 @@
 // step t's context; the decoder is lstm_ss.cu's with that per-step context.
 // The TPU kernel ran both in one pass over (batch tile, t). Here:
 //   * align_peer_fwd_kernel: the peer recurrence over the B·K peer rows,
-//     peer row p = b·K + k. A block holds all K peers of RV viewers, so ctx_t
-//     is a block-local sum in a fixed order. It writes the peer h and c
-//     (B·K, T, C) in the residual type (the gates are not saved: the backward
-//     recomputes them, as the TPU backward does) and ctx (B, T, C) f32;
+//     peer row p = b·K + k, on the serve tier's peer context body
+//     (lstm_mma.cuh encoder, on the tensor cores in both tiers). A block
+//     holds all K peers of RV viewers, so ctx_t is a block-local sum in a
+//     fixed order. It writes the peer h and c (B·K, T, C) in the residual
+//     type (the gates are not saved: the backward recomputes them, as the
+//     TPU backward does) and ctx (B, T, C) f32;
 //   * the decoder forward and backward recurrences: lstm_common.cuh's
-//     ss_fwd_kernel and ss_bwd_kernel with STEP_CTX = true (ctx_t reloaded
-//     every step; dctx_t written per step, not summed over t);
+//     ss_fwd_kernel and ss_bwd_kernel (the latter on the tensor cores) with
+//     STEP_CTX = true (ctx_t reloaded every step; dctx_t written per step,
+//     not summed over t);
 //   * align_peer_bwd_kernel: the peer backward in reverse time, over the
 //     peer rows: dh_k,t = pwt[b, k] · dctx_t + the carried dh; the gates
 //     recomputed from [pxs_t, h_{t-1}] (h_{t-1} read from the residuals, 0 at
@@ -45,20 +48,25 @@
 //   * Arithmetic. The peer forward is 2·B·K·T·(D + C)·4C = 385 GFLOP, the
 //     decoder forward 216 GFLOP; the backward recurrences the same again
 //     plus the peers' recomputed gates (385); the dW reductions as much as
-//     the forwards: about 2.3 TFLOP a step. Exact f32 on the FMA units
-//     (67 TFLOP/s) but for the peer backward's 770 GFLOP, which run on the
-//     tensor cores as three-pass TF32 (495 / 3 TFLOP/s: 4.67 ms; with bf16
-//     residuals the gates' h part, 376 GFLOP, is exact in TF32 and takes
-//     two passes: 3.90 ms; 11.5 ms on the FMA units), or in bf16 (0.78 ms
-//     at 989 TFLOP/s).
+//     the forwards: about 2.3 TFLOP a step. The peer forward (2.33 ms), the
+//     decoder backward (1.31 ms) and the peer backward's 770 GFLOP run on
+//     the tensor cores as three-pass TF32 (495 / 3 TFLOP/s: 4.67 ms; with
+//     bf16 residuals the gates' h part, 376 GFLOP, is exact in TF32 and
+//     takes two passes: 3.90 ms; 11.5 ms on the FMA units), or in bf16
+//     (0.78 ms at 989 TFLOP/s); the decoder forward stays exact f32 on the
+//     FMA units (67 TFLOP/s).
 //   * Bytes. bf16 peer residuals are 2C·2 bytes a row-step: 1.5 GB a pass;
 //     the peer dgates (4C f32) 5.9 GB, written once and read once: 1.75 ms
 //     each way at 3.35 TB/s, the bf16 peer backward's bound (2.27 ms with
 //     its residual reads).
-// What the design does about it: lstm_train.cu's tiles for the forwards and
-// the decoder backward (a thread owns 4 rows x 4 units), every carry on
-// chip, W streamed from L2 with 16-byte loads, and the split above, which
-// gives the peer kernels K times the rows. The peer backward, which in that
+// What the design does about it: lstm_train.cu's tiles for the decoder
+// forward (a thread owns 4 rows x 4 units), every carry on chip, W streamed
+// from L2 with 16-byte loads, and the split above, which gives the peer
+// kernels K times the rows. The peer forward, which in that design took
+// 19.2-19.3 ms, runs the serve tier's peer context body (lstm_mma.cuh),
+// whose h and c reach its residual stores by shuffles within a lane quad;
+// the decoder backward (19.4-19.8 ms) is lstm_common.cuh's tensor-core body
+// (its header says how). The peer backward, which in that
 // design took 54 ms, 35 % of the f32 train step, read all of Wp and
 // Wp[D:]ᵀ (530 KB) from L2 every step for 16 rows and ran its two products
 // (43.7 % of its time the dh product, 28.7 % the recomputed gates, by its
@@ -111,53 +119,22 @@ using PeerProbe = ClockProbe<false>;
 // peer forward
 // ---------------------------------------------------------------------------
 
-// Block: RV viewers from b0 = blockIdx.x · RV, their R = RV·K peer rows from
-// p0 = b0·K (contiguous in the (B·K, T, ·) layout). Per step: x_t = pxs_t,
-// one cell step (fwd_layer_step, h and c stored), then ctx_t of the block's
-// viewers from the f32 h in shared memory.
-template <typename RT, typename CT>
-__global__ void __launch_bounds__(256)
-    align_peer_fwd_kernel(const float* __restrict__ pxs,
-                          const float* __restrict__ pwt,
-                          const CT* __restrict__ wp,
-                          const float* __restrict__ bp, RT* __restrict__ php,
-                          RT* __restrict__ pcp, float* __restrict__ ctx, int B,
-                          int K, int T, int D, int C, int RV) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int R = RV * K, P = B * K;
-  const int j0 = (tid % (C / TJ)) * TJ;
-  const int r0 = (tid / (C / TJ)) * TR;
-  float* h_s = smem;            // (C, R)
-  float* c_s = h_s + C * R;     // owner-private (TR * TJ, nthr)
-  float* x_s = c_s + C * R;     // (D, R)
-  float* w_s = x_s + D * R;     // (R,) pwt of the block's peer rows
-  const long long b0 = (long long)blockIdx.x * RV, row0 = b0 * K;
-
-  for (int i = tid; i < 2 * C * R; i += nthr) h_s[i] = 0.0f;  // h_s, c_s
-  for (int r = tid; r < R; r += nthr) w_s[r] = row0 + r < P ? pwt[row0 + r] : 0.0f;
-  for (int t = 0; t < T; ++t) {
-    for (int i = tid; i < R * D; i += nthr) {
-      const int r = i / D, d = i % D;
-      const long long row = row0 + r;
-      x_s[d * R + r] = row < P ? pxs[((size_t)row * T + t) * D + d] : 0.0f;
-    }
-    __syncthreads();
-    fwd_layer_step<RT, false>(x_s, D, h_s, c_s, wp, bp, php, pcp, nullptr,
-                              row0, P, T, t, C, R, r0, j0, tid, nthr);
-    // ctx_t[b][c] = Σ_k w[b, k] · h[b·K + k][c]: neighbouring threads write
-    // neighbouring units of a row. The next step's h is written only after
-    // its first barrier, so these reads need none of their own.
-    for (int i = tid; i < RV * C; i += nthr) {
-      const int v = i / C, c = i % C;
-      const long long b = b0 + v;
-      if (b >= B) continue;
-      float s = 0.0f;
-      for (int k = 0; k < K; ++k) s += h_s[c * R + v * K + k] * w_s[v * K + k];
-      ctx[((size_t)b * T + t) * C + c] = s;
-    }
-  }
+// The serve tier's peer context body (lstm_mma.cuh encoder<P, MT, PEER =
+// true>, that of peer_context_kernel in fused_serve.cu) with the residual
+// stores: a block holds all K peers of RV viewers (rows p0 = b0·K .., padded
+// to whole tiles), f32 compute on three-pass TF32 in 32 x 8 tiles, bf16 on
+// bf16 mma in 32- or 16-row tiles, 16 warps; W packed once a call
+// (ops/fused_lstm.py pack_weights_tf32, pack_weights) and the block from
+// peer_tf32_rows / peer_tc_rows. Every step stores h and c into php and pcp
+// in RT by 16-byte pieces and ctx_t, summed from the f32 h, into ctx.
+template <typename RT, typename P, int MT>
+__global__ void __launch_bounds__(512)
+    align_peer_fwd_kernel(const float* __restrict__ pxs, const float* __restrict__ pwt, float* __restrict__ ctx,
+                          const uint4* __restrict__ w, const float* __restrict__ bp, RT* __restrict__ php,
+                          RT* __restrict__ pcp, int B, int K, int T, int D, int C, int RV, const lstm_mma::Geom geo) {
+  const float* bias[1] = {bp};
+  const long long p0 = (long long)blockIdx.x * RV * K;
+  lstm_mma::encoder<P, MT, true, RT>(pxs, pwt, ctx, w, bias, p0, B * K, RV * K, T, D, C, 1, K, RV, B, geo, php, pcp);
 }
 
 // ---------------------------------------------------------------------------
@@ -610,39 +587,56 @@ __global__ void __launch_bounds__(256, 1)
 
 extern "C" {
 
-// The peer forward: pxs (batch·n_peers, t_len, d) f32, pwt (batch, n_peers),
-// wp (d + ctx_dim, 4·ctx_dim), bp (4·ctx_dim,) → php, pcp (batch·n_peers,
-// t_len, ctx_dim) residual type, ctx (batch, t_len, ctx_dim) f32. rows_v
-// viewers a block: (rows_v·n_peers / 4)·(ctx_dim / 4) threads and
-// (2·ctx_dim + d + 1)·rows_v·n_peers floats of dynamic shared memory. bf16:
-// residuals in bf16; cbf16: the bf16 compute type, wp in bf16.
-int align_peer_fwd(const void* pxs, const void* pwt, const void* wp,
-                   const void* bp, void* php, void* pcp, void* ctx, int batch,
-                   int n_peers, int t_len, int d, int ctx_dim, int rows_v,
-                   int bf16, int cbf16, void* stream) {
+// The peer forward's dynamic shared memory (lstm_mma::smem_bytes) in the
+// tier (cbf16: bf16) at a block of rp rows in tiles of 16·mt, rows_v·n_peers
+// real ones, `warps` warps, W resident (w_res) or streamed, c in shared
+// memory (c_smem) or device memory; -1 for a block it does not take (f32:
+// 32-row tiles, W streamed; bf16: 32- or 16-row tiles; ctx_dim 32, 64, 96
+// or 128; at most 16 warps).
+long long align_peer_fwd_smem(int d, int ctx_dim, int n_peers, int rows_v, int rp, int mt, int warps, int w_res,
+                              int c_smem, int cbf16) {
   const int rows = rows_v * n_peers;
-  if (batch < 1 || n_peers < 1 || t_len < 1 || d < 1 || ctx_dim < 32 ||
-      ctx_dim % 32 || rows_v < 1 || rows % TR ||
-      (rows / TR) * (ctx_dim / TJ) > 256 ||
-      (long long)batch * n_peers * t_len >= (1LL << 31))
+  const bool tiles = cbf16 ? mt == 1 || mt == 2 : mt == 2 && !w_res;
+  if (!tiles || d < 1 || d > 8 || ctx_dim < 32 || ctx_dim > 128 || ctx_dim % 32 || n_peers < 1 || rows_v < 1 ||
+      rows > rp || rp % (16 * mt) || warps < 1 || warps > 16)
+    return -1;
+  const long long s = cbf16 ? lstm_mma::smem_bytes<lstm_mma::Bf16Mma>(true, rp, rows, d, ctx_dim, 1, w_res, c_smem)
+                            : lstm_mma::smem_bytes<lstm_mma::Tf32Mma>(true, rp, rows, d, ctx_dim, 1, w_res, c_smem);
+  return s > lstm_mma::SMEM_LIMIT ? -1 : s;
+}
+
+// The peer forward: pxs (batch·n_peers, t_len, d) f32, pwt (batch, n_peers),
+// w Wp (d + ctx_dim, 4·ctx_dim) packed for the tier (cbf16: pack_weights,
+// bf16; else pack_weights_tf32, f32), bp (4·ctx_dim,) → php, pcp
+// (batch·n_peers, t_len, ctx_dim) residual type (bf16: bf16), ctx (batch,
+// t_len, ctx_dim) f32. The block: rows_v viewers in rp rows, tiles of 16·mt
+// rows, `warps` warps, W resident (w_res) or streamed, c in shared memory or,
+// where c_glob is given, in c_glob (grid x rp x ctx_dim floats).
+int align_peer_fwd(const void* pxs, const void* pwt, const void* w, const void* bp, void* php, void* pcp, void* ctx,
+                   void* c_glob, int batch, int n_peers, int t_len, int d, int ctx_dim, int rows_v, int rp, int mt,
+                   int warps, int w_res, int bf16, int cbf16, void* stream) {
+  const long long smem = align_peer_fwd_smem(d, ctx_dim, n_peers, rows_v, rp, mt, warps, w_res, c_glob == nullptr,
+                                             cbf16);
+  if (smem < 0 || batch < 1 || t_len < 1 || (long long)batch * n_peers * t_len >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)2 * ctx_dim + d + 1) * rows * sizeof(float);
-  const int threads = (rows / TR) * (ctx_dim / TJ);
   const int grid = (batch + rows_v - 1) / rows_v;
+  const lstm_mma::Geom geo{rp, mt, w_res, static_cast<float*>(c_glob)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float *x = static_cast<const float*>(pxs), *w = static_cast<const float*>(pwt),
+  const float *x = static_cast<const float*>(pxs), *pw = static_cast<const float*>(pwt),
               *b = static_cast<const float*>(bp);
+  const uint4* wp = static_cast<const uint4*>(w);
   float* out = static_cast<float*>(ctx);
-#define PEER_FWD(RT, CT)                                                         \
-  launch_with_smem(align_peer_fwd_kernel<RT, CT>, grid, threads, smem, st, x, w, \
-                   static_cast<const CT*>(wp), b, static_cast<RT*>(php),         \
-                   static_cast<RT*>(pcp), out, batch, n_peers, t_len, d,         \
-                   ctx_dim, rows_v)
+#define PEER_FWD(RT, P, MT)                                                                                       \
+  launch_with_smem(align_peer_fwd_kernel<RT, P, MT>, grid, 32 * warps, (size_t)smem, st, x, pw, out, wp, b,     \
+                   static_cast<RT*>(php), static_cast<RT*>(pcp), batch, n_peers, t_len, d, ctx_dim, rows_v, geo)
   using BF = __nv_bfloat16;
-  if (bf16 && cbf16) return PEER_FWD(BF, BF);
-  if (bf16) return PEER_FWD(BF, float);
-  if (cbf16) return PEER_FWD(float, BF);
-  return PEER_FWD(float, float);
+  using lstm_mma::Bf16Mma;
+  using lstm_mma::Tf32Mma;
+  if (cbf16) {
+    if (bf16) return mt == 2 ? PEER_FWD(BF, Bf16Mma, 2) : PEER_FWD(BF, Bf16Mma, 1);
+    return mt == 2 ? PEER_FWD(float, Bf16Mma, 2) : PEER_FWD(float, Bf16Mma, 1);
+  }
+  return bf16 ? PEER_FWD(BF, Tf32Mma, 2) : PEER_FWD(float, Tf32Mma, 2);
 #undef PEER_FWD
 }
 
@@ -661,17 +655,13 @@ int align_dec_fwd(const void* h0, const void* c0, const void* y0,
                              hidden, layers, rows, bf16, cbf16, stream);
 }
 
-int align_dec_bwd(const void* dys, const void* c0, const void* coins,
-                  const void* w0, const void* const* wt, const void* wtc,
-                  const void* proj_w, const void* const* cs,
-                  const void* const* gs, void* const* dg, void* dy,
-                  void* dteacher, void* dy0, void* dh0, void* dc0, void* dctx,
-                  int batch, int t_len, int d, int ctx_dim, int hidden,
-                  int layers, int rows, int bf16, int cbf16, void* stream) {
-  if (wtc == nullptr || dctx == nullptr || ctx_dim < 1) return (int)cudaErrorInvalidValue;
-  return ss_bwd_launch<true>(dys, c0, coins, w0, wt, wtc, proj_w, cs, gs, dg,
-                             dy, dteacher, dy0, dh0, dc0, dctx, batch, t_len, d,
-                             ctx_dim, hidden, layers, rows, bf16, cbf16, stream);
+int align_dec_bwd(const void* dys, const void* c0, const void* coins, const void* const* wt, const void* w0x,
+                  const void* proj_w, const void* const* cs, const void* const* gs, void* const* dg, void* dy,
+                  void* dteacher, void* dy0, void* dh0, void* dc0, void* dctx, int batch, int t_len, int d,
+                  int ctx_dim, int hidden, int layers, int nbuf, int stages, int bf16, int cbf16, void* stream) {
+  if (dctx == nullptr || ctx_dim < 1) return (int)cudaErrorInvalidValue;
+  return ss_bwd_launch<true>(dys, c0, coins, wt, w0x, proj_w, cs, gs, dg, dy, dteacher, dy0, dh0, dc0, dctx, batch,
+                             t_len, d, ctx_dim, hidden, layers, nbuf, stages, bf16, cbf16, stream);
 }
 
 // The peer backward's dynamic shared memory at warps warps a block, or -1
@@ -796,6 +786,10 @@ int align_peer_dw(const void* pxs, const void* h0, const void* php,
 // The probe build's clock counters (PeerPart order, PB_PARTS of them) into
 // out, then zeroed; without PEER_PROBE, zeros.
 int lstm_align_probe_read(unsigned long long* out) { return probe_read(g_peer_probe, out); }
+
+// The decoder backward's probe counters (lstm_common.cuh SsbPart order,
+// SB_PARTS of them) into out, then zeroed; without SSB_PROBE, zeros.
+int ss_bwd_probe_read(unsigned long long* out) { return probe_read(g_ssb_probe, out); }
 
 const char* lstm_align_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -7,12 +7,15 @@
 //     activation (h, x, dgates, dy) is kept in f32 and rounded where it
 //     enters a product. Carries, gates, the cell update, residual stores and
 //     the sums db, dproj_b stay f32;
-//   * the thread tile of the forwards and the decoder backward: TR = 4 batch
-//     rows x TJ = 4 hidden units per thread, a layer input held k-major
-//     (K, R) in shared memory, and accumulate<NG>, the FMA loop that reads W
-//     rows with 16-byte loads (the peer backward of lstm_align.cu has its
-//     own tiles on the tensor cores, tensor_core.cuh's mma.sync);
+//   * the thread tile of the forwards and lstm_train.cu's backward: TR = 4
+//     batch rows x TJ = 4 hidden units per thread, a layer input held
+//     k-major (K, R) in shared memory, and accumulate<NG>, the FMA loop that
+//     reads W rows with 16-byte loads (the peer kernels of lstm_align.cu run
+//     on the tensor cores: the peer forward is lstm_mma.cuh's encoder, the
+//     peer backward has its own tiles);
 //   * fwd_layer_step, one forward layer-step with its residual stores;
+//   * the scheduled-sampling decoder's backward recurrence on the tensor
+//     cores (ss_bwd_kernel, both compute tiers, lstm_mma.cuh's pieces);
 //   * the cp.async copies (16 and 4 bytes, groups) of the dW products and
 //     the peer backward;
 //   * the deterministic dW/db reduction: lstm_dw_pack_kernel writes each
@@ -35,6 +38,7 @@
 #include <algorithm>
 
 #include "compute_type.cuh"
+#include "lstm_mma.cuh"
 #include "tensor_core.cuh"
 
 #define MAX_LAYERS 8
@@ -92,10 +96,6 @@ struct Res<__nv_bfloat16> {
 };
 
 using F = Res<float>;
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 // acc[g][r][j] += sum_{k<K} z[k][r0 + r] * W[k][g * goff + j0 + j].
 // z is k-major (K, R) in shared memory, so the thread's 4 rows are one
@@ -173,10 +173,8 @@ __device__ __forceinline__ void load_states(float* h_s, float* c_s,
 // One forward layer-step for the block's R rows: gates = [in, h] @ W + b, the
 // cell update, and the residual stores. in: (k_in, R) layer input; h: (H, R)
 // this layer's hidden state, read and then overwritten; c: this layer's cell
-// state, owner-private [TR * TJ][nthr]. GATES = false stores h and c only
-// (the lockstep peer encoder, whose backward recomputes its gates). W is in
-// the compute type CT.
-template <typename RT, bool GATES = true, typename CT>
+// state, owner-private [TR * TJ][nthr]. W is in the compute type CT.
+template <typename RT, typename CT>
 __device__ __forceinline__ void fwd_layer_step(
     const float* in, int k_in, float* h, float* c, const CT* __restrict__ W,
     const float* __restrict__ bias, RT* hs, RT* cs, RT* gs, long long row0,
@@ -208,10 +206,8 @@ __device__ __forceinline__ void fwd_layer_step(
     const long long row = row0 + r0 + r;
     if (row < B) {
       const size_t q = (size_t)row * T + t;
-      if constexpr (GATES) {
 #pragma unroll
-        for (int g = 0; g < 4; ++g) Res<RT>::st4(gs + q * 4 * H + g * H + j0, gv[g]);
-      }
+      for (int g = 0; g < 4; ++g) Res<RT>::st4(gs + q * 4 * H + g * H + j0, gv[g]);
       Res<RT>::st4(cs + q * H + j0, cv);
       Res<RT>::st4(hs + q * H + j0, hv[r]);
     }
@@ -859,152 +855,567 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename CT>
+// ---------------------------------------------------------------------------
+// The backward recurrence on the tensor cores (ss_bwd_kernel), both compute
+// tiers: P = lstm_mma::Tf32Mma (f32 compute: three-pass TF32 on mma.sync
+// m16n8k8, operands split by split_fast, sums in fresh chunk accumulators)
+// or lstm_mma::Bf16Mma (bf16 compute: mma.sync m16n8k16, bf16 operands, f32
+// sums). In reverse time, per layer from the top down: the cell backward
+// from the residual gates, c_t and c_{t-1} (c0 at t = 0), the carried dh
+// and dc and `above` (dy_t · proj_wᵀ at the top layer); dgates, written f32;
+// then dgates · Wᵀ, whose columns are, for l > 0, [the carried dh (H) |
+// `above` of layer l - 1 (H)], and for layer 0 [the carried dh (H) | dctx
+// (C) | dx (D)]; from dx, with the coin at step t, dteacher_t and the
+// feedback into dy_{t-1}; at the end dy0, dh0 and dc0. STEP_CTX writes dctx
+// per step (the lockstep decoder), else sums it over t (lstm_ss.cu).
+//
+// What bounds it on the card (stacked-ss-crossuser-10s: B = 4096, T = 100,
+// L = 2, H = C = 128, D = 3): the products, 2·B·T·4H·(2H + H + C + 8) =
+// 216 GFLOP with proj, 1.31 ms in three-pass TF32 at 495 / 3 TFLOP/s and
+// 0.22 ms in bf16; the bytes, the residual gates and c read and the f32
+// dgates written once, 0.885 ms at 3.35 TB/s with bf16 residuals: the bf16
+// tier's bound; the recurrence, serial over T·L layer-steps, each a cell,
+// a barrier and a product of K = 4H; and W, 1.05 MB in f32 a step, which no
+// block's shared memory holds beside its state: every block reads it from
+// L2 every step.
+// What the design does about it:
+//   * A block holds 32 batch rows (two m16 tiles) in H / 8 warps (16 at H =
+//     128): one wave of 128 blocks at B = 4096. Warp w owns the units 8w ..
+//     8w + 7 of all 32 rows: in the cell (its lanes' (row, unit) pairs in
+//     mma's accumulator layout: rows g, g + 8 of each m-tile, units 2t, 2t +
+//     1) and in the product, whose n-tiles are those units' dh and `above`,
+//     so that the layer below reads `above` from the same warp's registers
+//     and the carried dh, dc stay in lane-private slots of shared memory.
+//   * The cell writes dgates f32 to device memory and, rounded where the
+//     tier rounds (bf16), into an A buffer in shared memory (32 rows x 4H,
+//     a 16-byte pad a row: ldmatrix's eight rows on distinct banks), double
+//     buffered where it fits, so one barrier a layer-step suffices.
+//   * Each warp's product reads all 4H of dgates as its k by ldmatrix and
+//     its n-tiles of Wᵀ as a stream of 16-byte pieces a lane (two k-steps a
+//     piece) from L2, packed once a call by ops/lstm_ss.py pack_bwd_weights
+//     in mma's B fragment order, each lane's pieces by cp.async through the
+//     warp's own ring in shared memory, 3 k-pairs ahead of the mma (1 ahead
+//     in registers left the products waiting on L2). At layer 0 the C / 8
+//     dctx n-tiles go one a warp.
+//   * dx (D <= 8 columns): every warp's partial over its own 32 gate
+//     columns, an mma on the cell's registers (dx_partial), summed in warp
+//     order after the barrier (as a warp's third n-tile it held every other
+//     warp at the barrier; on the FMA units it cost more). The feedback
+//     (dteacher_t, dy_{t-1} = dys_{t-1} + dx·(1 - coin), `above` = dy ·
+//     proj_wᵀ) runs on the FMA units, its coin and dys loaded at the step's
+//     start; dy_{t-1} goes into shared memory, one more barrier a step.
+//   * The residual gates and c of the next layer-step are loaded into
+//     registers before the current product on bf16 residuals (24 registers;
+//     f32 residuals are loaded at the cell).
+// The probe build (-DSSB_PROBE): thread 0 of every block adds the clock64
+// ticks of each part to g_ssb_probe; ss_bwd_probe_read copies them out.
+enum SsbPart {
+  SB_LOADS,     // the residuals' loads (where they are not ahead) and `above` from dy at the top layer
+  SB_CELL,      // the cell backward, the dgates stores (device and shared memory)
+  SB_BARRIERS,  // block barriers
+  SB_PRODUCTS,  // dgates · Wᵀ
+  SB_EPILOGUE,  // the carried dh, dctx, the feedback
+  SB_PARTS
+};
+__device__ unsigned long long g_ssb_probe[SB_PARTS];
+#ifdef SSB_PROBE
+using SsbProbe = ClockProbe<true>;
+#else
+using SsbProbe = ClockProbe<false>;
+#endif
+
+constexpr int SSB_ROWS = 32;  // batch rows a block: two m16 tiles
+constexpr int SSB_MAX_D = 8;  // coordinates a token
+
 struct SsBwdArgs {
-  const CT* w0;                 // layer 0's W (D + C + H, 4H): rows :D give dx
-  const CT* wt[MAX_LAYERS];     // l == 0: W[D+C:]ᵀ (4H, H); l > 0:
-                                // [W[H:]; W[:H]]ᵀ (4H, 2H), dh part first
-  const CT* wtc;                // layer 0's W[D:D+C]ᵀ (4H, C); null if C == 0
+  const uint4* wt[MAX_LAYERS];  // layer l's Wᵀ packed (pack_bwd_weights), n-tile after n-tile
+  const void* w0x;              // layer 0's W[:D] (D, 4H) in the compute type: dx
   const void* cs[MAX_LAYERS];   // (B, T, H) residual type
   const void* gs[MAX_LAYERS];   // (B, T, 4H)
   float* dg[MAX_LAYERS];        // (B, T, 4H) dgates out
-  const CT* proj_w;             // (H, D)
+  const void* proj_w;           // (H, D) in the compute type
 };
 
-template <typename RT, bool STEP_CTX, typename CT>
-__global__ void __launch_bounds__(256)
-    ss_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ c0,
-                  const float* __restrict__ coins, const SsBwdArgs<CT> a,
-                  float* __restrict__ dy, float* __restrict__ dteacher,
-                  float* __restrict__ dy0, float* __restrict__ dh0,
-                  float* __restrict__ dc0, float* __restrict__ dctx, int B,
-                  int T, int D, int C, int H, int L, int R) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int j0 = (tid % (H / TJ)) * TJ;
-  const int r0 = (tid / (H / TJ)) * TR;
-  const int HR = H * R, G = 4 * H;
-  float* dg_s = smem;             // (4H, R) dgates of this layer-step
-  float* dh_s = dg_s + G * R;     // L x owner-private (TR * TJ, nthr)
-  float* dc_s = dh_s + L * HR;    // L x owner-private
-  float* dctx_s = dc_s + L * HR;  // (C, R) dctx, each entry summed by its owner
-  float* fb_s = dctx_s + C * R;   // (D, R) feedback gradient of y_{t-1}
-  float* dy_s = fb_s + D * R;     // (D, R) total gradient of y_t
-  const long long row0 = (long long)blockIdx.x * R;
+// The block's dynamic shared memory: nbuf A buffers of 32 rows x (4H + a
+// 16-byte pad) in P::E, the carried dh and dc of every layer (f32), the
+// static context's dctx sums (f32; STEP_CTX: none), dy_t of the rows (32 x
+// SSB_MAX_D f32), the warps' partials of dx (h / 8 warps x 32 x SSB_MAX_D
+// f32) and each warp's ring of W's pieces (stages x 2 n-tiles x 512 bytes).
+template <typename P>
+__host__ __device__ inline long long ssb_smem_bytes(int h, int layers, int c, bool step_ctx, int nbuf, int stages) {
+  return (long long)nbuf * sizeof(typename P::E) * SSB_ROWS * (4 * h + P::PAD) + 8LL * layers * SSB_ROWS * h +
+         (step_ctx ? 0 : 4LL * SSB_ROWS * c) + 4LL * SSB_ROWS * SSB_MAX_D * (1 + h / 8) + 1024LL * stages * (h / 8);
+}
 
-  // the decoder's final states get no gradient: the carries start at 0
-  for (int i = tid; i < (2 * L * H + C + D) * R; i += nthr) dh_s[i] = 0.0f;
-  __syncthreads();
-
-  for (int t = T - 1; t >= 0; --t) {
-    // dy_t = dys_t + the feedback from step t + 1
-    for (int i = tid; i < R * D; i += nthr) {
-      const int r = i / D, d = i % D;
-      const long long row = row0 + r;
-      float v = 0.0f;
-      if (row < B) {
-        const size_t q = ((size_t)row * T + t) * D + d;
-        v = dys[q] + fb_s[d * R + r];
-        dy[q] = v;
-      }
-      dy_s[d * R + r] = v;
+// A warp's partial of dx = dgates · W[:D]ᵀ over its own 32 gate columns (gate
+// q's units 8w .. 8w + 7) for one m-tile, on the tensor cores from the
+// cell's registers: dg[q][hh][j] is the lane's dgates of gate q at row g +
+// 8·hh, unit u + j, which are mma's A fragments in the k order below; the
+// lane's B fragments are W[:D] at row n = g (zero where g >= D: ok), from
+// w0x (D, 4H) in the compute type at w0 = g·4H + u. bf16 (m16n8k16): k16
+// step j covers gates 2j, 2j + 1, k = 2t, 2t + 1 ↔ units u, u + 1 of the
+// first, k = 8 + 2t, .. of the second, rounded to bf16 as the A buffer.
+// f32 (three-pass TF32, m16n8k8): k8 step q is gate q, k = t ↔ unit u, k =
+// t + 4 ↔ unit u + 1. acc: rows g, g + 8 x d = 2t, 2t + 1.
+template <typename P>
+__device__ __forceinline__ void dx_partial(float (&acc)[4], const float (&dg)[4][2][2], const void* w0x, bool ok,
+                                           size_t w0, int H) {
+  if constexpr (std::is_same<P, lstm_mma::Tf32Mma>::value) {
+    const float* wp = static_cast<const float*>(w0x) + w0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 bw = ok ? __ldg(reinterpret_cast<const float2*>(wp + q * H)) : make_float2(0.0f, 0.0f);
+      unsigned ah[4], al[4], bh[2], bl[2];
+      const float av[4] = {dg[q][0][0], dg[q][1][0], dg[q][0][1], dg[q][1][1]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) lstm_mma::split_fast(av[e], ah[e], al[e]);
+      lstm_mma::split_fast(bw.x, bh[0], bl[0]);
+      lstm_mma::split_fast(bw.y, bh[1], bl[1]);
+      mma_tf32(acc, al, bh[0], bh[1]);
+      mma_tf32(acc, ah, bl[0], bl[1]);
+      mma_tf32(acc, ah, bh[0], bh[1]);
     }
-    __syncthreads();
-    float above[TR][TJ];  // dy_t · proj_wᵀ, the gradient at the top layer's h
+  } else {
+    const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(w0x) + w0;
 #pragma unroll
-    for (int r = 0; r < TR; ++r)
+    for (int j = 0; j < 2; ++j) {
+      unsigned av[4];
 #pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        float s = 0.0f;
-        for (int d = 0; d < D; ++d)
-          s = fmaf(cround<CT>(dy_s[d * R + r0 + r]), ldw1(a.proj_w + (size_t)(j0 + j) * D + d), s);
-        above[r][j] = s;
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(dg[2 * j + (e >> 1)][e & 1][0], dg[2 * j + (e >> 1)][e & 1][1]);
+        av[e] = *reinterpret_cast<const unsigned*>(&v);
       }
-    for (int l = L - 1; l >= 0; --l) {
-      bwd_cell_step<RT>(static_cast<const RT*>(a.gs[l]),
-                        static_cast<const RT*>(a.cs[l]), c0, a.dg[l], above,
-                        dh_s + l * HR, dc_s + l * HR, dg_s, row0, B, T, t, l,
-                        H, R, r0, j0, tid, nthr);
-      __syncthreads();  // dgates of this layer-step complete in dg_s
+      const unsigned b0 = ok ? __ldg(reinterpret_cast<const unsigned*>(wp + 2 * j * H)) : 0u;
+      const unsigned b1 = ok ? __ldg(reinterpret_cast<const unsigned*>(wp + (2 * j + 1) * H)) : 0u;
+      mma_bf16(acc, av, b0, b1);
+    }
+  }
+}
 
-      if (l > 0) {
-        float acc[2][TR][TJ];
-        zero(acc);
-        accumulate<2>(acc, dg_s, G, a.wt[l], 2 * H, H, R, r0, j0);
+// a pair of residual values (units u, u + 1) loaded where it stands (volatile:
+// the next layer-step's loads stay ahead of the product's asm), widened at use
+template <typename RT>
+struct ResPair;
+
+template <>
+struct ResPair<float> {
+  using Raw = float2;
+  static __device__ __forceinline__ Raw ld(const float* p) {
+    Raw v;
+    asm volatile("ld.global.nc.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "l"(p));
+    return v;
+  }
+  static __device__ __forceinline__ Raw zero() { return make_float2(0.0f, 0.0f); }
+  static __device__ __forceinline__ float2 wide(Raw v) { return v; }
+};
+
+template <>
+struct ResPair<__nv_bfloat16> {
+  using Raw = unsigned;
+  static __device__ __forceinline__ Raw ld(const __nv_bfloat16* p) {
+    Raw v;
+    asm volatile("ld.global.nc.b32 %0, [%1];\n" : "=r"(v) : "l"(p));
+    return v;
+  }
+  static __device__ __forceinline__ Raw zero() { return 0u; }
+  static __device__ __forceinline__ float2 wide(Raw v) {
+    return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+  }
+};
+
+// acc[n][mt] = A · Wᵀ[:, n-tile n] for the block's 32 rows (mt: rows 16mt ..
+// + 15) over k = 4H: A the dgates buffer `a` (row stride lda, P::E), by
+// ldmatrix; the n-tiles' packed streams wn[n] (plus the lane), 16 bytes a
+// lane a k-pair (two k-steps), each lane's pieces copied by cp.async into
+// its own slots of the warp's ring of S k-pairs in shared memory (`ring`:
+// S x 2 x 32 uint4), S - 1 k-pairs ahead of the mma; a lane reads only
+// what it copied, so its own cp.async.wait_group orders them.
+template <typename P, int NT, int S>
+__device__ __forceinline__ void ssb_product(float (&acc)[NT][2][4], const typename P::E* a, int lda,
+                                            const uint4* const (&wn)[NT], int kpairs, int lane, uint4* ring) {
 #pragma unroll
-        for (int r = 0; r < TR; ++r)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-          for (int j = 0; j < TJ; ++j) {
-            dh_s[l * HR + (r * TJ + j) * nthr + tid] = acc[0][r][j];
-            above[r][j] = acc[1][r][j];
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][mt][e] = 0.0f;
+  auto issue = [&](int kp) {
+    if (kp < kpairs)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) cp_async16(ring + ((kp % S) * 2 + n) * 32 + lane, wn[n] + 32 * kp, true);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) issue(s);
+  // k-pair kp's pieces from the ring; then the copy of k-pair kp + S - 1 into
+  // the slot that k-pair kp - 1 left
+  auto fetch = [&](uint4 (&b)[NT], int kp) {
+    cp_async_wait<S - 2>();
+#pragma unroll
+    for (int n = 0; n < NT; ++n) b[n] = ring[((kp % S) * 2 + n) * 32 + lane];
+    issue(kp + S - 1);
+  };
+  if constexpr (std::is_same<P, lstm_mma::Tf32Mma>::value) {
+    const float* ap = a + (lane & 15) * lda + (lane >> 4) * 4;
+    // chunks of two k-pairs (4 k8 steps) in fresh accumulators, added to acc
+    for (int kp0 = 0; kp0 < kpairs; kp0 += 2) {
+      float c[NT][2][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[n][mt][e] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kp = kp0 + j;
+        uint4 b[NT];
+        fetch(b, kp);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          unsigned bh[NT][2], bl[NT][2];
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            lstm_mma::split_fast(__uint_as_float(h ? b[n].z : b[n].x), bh[n][0], bl[n][0]);
+            lstm_mma::split_fast(__uint_as_float(h ? b[n].w : b[n].y), bh[n][1], bl[n][1]);
           }
-      } else {
-        float acc[1][TR][TJ];
-        zero(acc);
-        accumulate<1>(acc, dg_s, G, a.wt[0], H, 0, R, r0, j0);
 #pragma unroll
-        for (int r = 0; r < TR; ++r)
+          for (int mt = 0; mt < 2; ++mt) {
+            unsigned r[4], ah[4], al[4];
+            ldsm_x4(r, ap + mt * 16 * lda + 8 * (2 * kp + h));
 #pragma unroll
-          for (int j = 0; j < TJ; ++j)
-            dh_s[(r * TJ + j) * nthr + tid] = acc[0][r][j];
-        // dctx = dgates · W[D:D+C]ᵀ: the thread owns units c .. c + 3;
-        // summed over t (static) or written for this step (per-step)
-        for (int c = j0; c < C; c += H) {
-          float cacc[1][TR][TJ];
-          zero(cacc);
-          accumulate<1>(cacc, dg_s, G, a.wtc, C, 0, R, r0, c);
-          if constexpr (STEP_CTX) {
+            for (int e = 0; e < 4; ++e) lstm_mma::split_fast(__uint_as_float(r[e]), ah[e], al[e]);
+            // a_lo·b_hi, a_hi·b_lo, a_hi·b_hi: the small terms first
 #pragma unroll
-            for (int r = 0; r < TR; ++r) {
-              const long long row = row0 + r0 + r;
-              if (row < B) F::st4(dctx + ((size_t)row * T + t) * C + c, cacc[0][r]);
-            }
-          } else {
+            for (int pass = 0; pass < 3; ++pass)
 #pragma unroll
-            for (int r = 0; r < TR; ++r)
-#pragma unroll
-              for (int j = 0; j < TJ; ++j) dctx_s[(c + j) * R + r0 + r] += cacc[0][r][j];
+              for (int n = 0; n < NT; ++n) {
+                const unsigned(&av)[4] = pass == 0 ? al : ah;
+                const unsigned(&bv)[2] = pass == 1 ? bl[n] : bh[n];
+                mma_tf32(c[n][mt], av, bv[0], bv[1]);
+              }
           }
         }
-        // dx = dgates · W[:D]ᵀ → dteacher_t, and the feedback to y_{t-1}
-        input_grad(dg_s, a.w0, D, G, R, row0, B, tid, nthr,
-                   [&](int r, int d, float dx) {
-                     const size_t q = (size_t)t * B + row0 + r;
-                     const float coin = coins[q];
-                     dteacher[q * D + d] = dx * coin;
-                     fb_s[d * R + r] = dx * (1.0f - coin);
-                   });
       }
-      __syncthreads();  // dg_s is read by everyone before it is overwritten
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][mt][e] += c[n][mt][e];
     }
+  } else {
+    const __nv_bfloat16* ap = a + (lane & 15) * lda + (lane >> 4) * 8;
+#pragma unroll 2
+    for (int kp = 0; kp < kpairs; ++kp) {
+      uint4 b[NT];
+      fetch(b, kp);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          unsigned av[4];
+          ldsm_x4(av, ap + mt * 16 * lda + 16 * (2 * kp + h));
+#pragma unroll
+          for (int n = 0; n < NT; ++n) mma_bf16(acc[n][mt], av, h ? b[n].z : b[n].x, h ? b[n].w : b[n].y);
+        }
+    }
+  }
+}
+
+template <typename RT, bool STEP_CTX, typename P>
+__global__ void __launch_bounds__(512)
+    ss_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ c0, const float* __restrict__ coins,
+                  const SsBwdArgs a, float* __restrict__ dy, float* __restrict__ dteacher, float* __restrict__ dy0,
+                  float* __restrict__ dh0, float* __restrict__ dc0, float* __restrict__ dctx, int B, int T, int D,
+                  int C, int H, int L, int nbuf, int stages) {
+  using E = typename P::E;
+  using CT = std::conditional_t<std::is_same<P, lstm_mma::Tf32Mma>::value, float, __nv_bfloat16>;
+  using RP = ResPair<RT>;
+  using Raw = typename RP::Raw;
+  // the next layer-step's residuals in registers during the product on
+  // bf16 residuals (24 registers; f32 ones would take 48)
+  constexpr bool AHEAD = !std::is_same<RT, float>::value;
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, nw = blockDim.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3, u = 8 * w + 2 * t4;  // the lane's units u, u + 1
+  const int G = 4 * H, lda = G + P::PAD, NB = H / 8, CB = C / 8;
+  const int kpairs = G / (2 * P::KS), tile_u4 = kpairs * 32;  // k-pairs of K = 4H; uint4s of a packed n-tile
+  const long long row0 = (long long)blockIdx.x * SSB_ROWS;
+  SsbProbe pr(g_ssb_probe);
+
+  char* sp = reinterpret_cast<char*>(smem4);
+  E* abuf = reinterpret_cast<E*>(sp);  // nbuf x (32, lda)
+  sp += (size_t)nbuf * sizeof(E) * SSB_ROWS * lda;
+  float4* dhs = reinterpret_cast<float4*>(sp);  // slot ((l·nw + w)·2 + mt)·32 + lane: the carried dh
+  float4* dcs = dhs + (size_t)L * nw * 64;      // the carried dc
+  sp += (size_t)2 * 16 * L * nw * 64;
+  float4* dsum = reinterpret_cast<float4*>(sp);  // static dctx: slot (ct·2 + mt)·32 + lane of warp ct
+  if (!STEP_CTX) sp += (size_t)16 * CB * 64;
+  float* dys_s = reinterpret_cast<float*>(sp);  // (32, SSB_MAX_D): dy_t of the block's rows
+  sp += (size_t)4 * SSB_ROWS * SSB_MAX_D;
+  float* dxp = reinterpret_cast<float*>(sp);  // (nw, 32, SSB_MAX_D): the warps' partials of dx
+  sp += (size_t)4 * nw * SSB_ROWS * SSB_MAX_D;
+  uint4* ring = reinterpret_cast<uint4*>(sp) + (size_t)w * stages * 64;  // the warp's ring of W's pieces
+
+  // the lane's rows: 16·mt + 8·hh + g
+  auto grow = [&](int mt, int hh) { return row0 + 16 * mt + 8 * hh + g8; };
+  for (int i = tid; i < 2 * L * nw * 64; i += blockDim.x) dhs[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (!STEP_CTX)
+    for (int i = tid; i < CB * 64; i += blockDim.x) dsum[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  // dy_{T-1} = dys_{T-1}: the decoder's last output gets no feedback
+  for (int i = tid; i < SSB_ROWS * SSB_MAX_D; i += blockDim.x) {
+    const int r = i / SSB_MAX_D, d = i % SSB_MAX_D;
+    const long long row = row0 + r;
+    float v = 0.0f;
+    if (d < D && row < B) {
+      const size_t q = ((size_t)row * T + T - 1) * D + d;
+      v = dys[q];
+      dy[q] = v;
+    }
+    dys_s[i] = v;
   }
 
-  for (int i = tid; i < R * D; i += nthr) {
-    const int r = i / D, d = i % D;
-    const long long row = row0 + r;
-    if (row < B) dy0[row * D + d] = fb_s[d * R + r];
-  }
-  if constexpr (!STEP_CTX) {
-    for (int i = tid; i < R * C; i += nthr) {
-      const int r = i / C, c = i % C;
-      const long long row = row0 + r;
-      if (row < B) dctx[row * C + c] = dctx_s[c * R + r];
+  // the residuals of layer-step (l, t) for the lane's pairs: gates, c_t,
+  // c_{t-1} (t > 0; c0 is read in the cell)
+  struct Ahead {
+    Raw g[4][2][2], ct[2][2], cp[2][2];
+  };
+  auto load = [&](Ahead& r, int l, int t) {
+    const RT* gs = static_cast<const RT*>(a.gs[l]);
+    const RT* cs = static_cast<const RT*>(a.cs[l]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long row = grow(mt, hh);
+        const bool ok = row < B;
+        const size_t q = (size_t)row * T + t;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) r.g[k][mt][hh] = ok ? RP::ld(gs + q * G + k * H + u) : RP::zero();
+        r.ct[mt][hh] = ok ? RP::ld(cs + q * H + u) : RP::zero();
+        r.cp[mt][hh] = ok && t > 0 ? RP::ld(cs + (q - 1) * H + u) : RP::zero();
+      }
+  };
+
+  Ahead res;
+  if (AHEAD) load(res, L - 1, T - 1);
+  __syncthreads();  // the slots zeroed, dy_{T-1} in place
+  float4 above[2];  // the gradient at the lane's pairs of this layer's h from above
+  int buf = 0;
+  pr.mark(SB_LOADS);
+  for (int t = T - 1; t >= 0; --t) {
+    // the coin of step t and dys_{t-1} at the lane's first (row, d) of the feedback
+    float fb_coin = 0.0f, fb_dys = 0.0f;
+    {
+      const int d = lane % SSB_MAX_D;
+      const long long row = row0 + w + nw * (lane / SSB_MAX_D);
+      if (lane < (SSB_ROWS / nw) * SSB_MAX_D && d < D && row < B) {
+        fb_coin = lstm_mma::ldg_now(coins + (size_t)t * B + row);
+        if (t > 0) fb_dys = lstm_mma::ldg_now(dys + ((size_t)row * T + t - 1) * D + d);
+      }
     }
+    for (int l = L - 1; l >= 0; --l) {
+      if (l == L - 1) {  // dy_t · proj_wᵀ from the f32 dy, rounded to CT as it enters the product
+        const CT* pw = static_cast<const CT*>(a.proj_w);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float* dyr = dys_s + (16 * mt + 8 * (e >> 1) + g8) * SSB_MAX_D;
+            const CT* pwu = pw + (size_t)(u + (e & 1)) * D;
+            float s = 0.0f;
+            for (int d = 0; d < D; ++d) s = fmaf(cround<CT>(dyr[d]), ldw1(pwu + d), s);
+            v[e] = s;
+          }
+          above[mt] = make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+      if (!AHEAD) load(res, l, t);
+      pr.mark(SB_LOADS);
+      // -- the cell backward on the lane's pairs; dgates out and into the A
+      // buffer; at layer 0 the warp's partial of dx over its 32 gate columns
+      {
+        E* ab = abuf + (size_t)buf * SSB_ROWS * lda;
+        float* dgo = a.dg[l];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          float4* dh_slot = dhs + ((size_t)(l * nw + w) * 2 + mt) * 32 + lane;
+          float4* dc_slot = dcs + ((size_t)(l * nw + w) * 2 + mt) * 32 + lane;
+          const float4 dh4 = *dh_slot, dc4 = *dc_slot;
+          const float dhv[4] = {dh4.x, dh4.y, dh4.z, dh4.w}, ab4[4] = {above[mt].x, above[mt].y, above[mt].z,
+                                                                        above[mt].w};
+          float dcv[4] = {dc4.x, dc4.y, dc4.z, dc4.w};
+          float dg[4][2][2];  // gate, row g or g + 8, unit u or u + 1
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const long long row = grow(mt, hh);
+            float2 gq[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) gq[k] = RP::wide(res.g[k][mt][hh]);
+            const float2 ct = RP::wide(res.ct[mt][hh]);
+            float2 cp = RP::wide(res.cp[mt][hh]);
+            if (t == 0 && row < B) cp = *reinterpret_cast<const float2*>(c0 + ((size_t)l * B + row) * H + u);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int e = 2 * hh + j;
+              const float i_g = j ? gq[0].y : gq[0].x, f_g = j ? gq[1].y : gq[1].x;
+              const float g_g = j ? gq[2].y : gq[2].x, o_g = j ? gq[3].y : gq[3].x;
+              const float c_t = j ? ct.y : ct.x, c_p = j ? cp.y : cp.x;
+              const float dh_total = ab4[e] + dhv[e];
+              const float tanh_c = tanhf(c_t);
+              const float dc_total = dh_total * o_g * (1.0f - tanh_c * tanh_c) + dcv[e];
+              dg[0][hh][j] = dc_total * g_g * i_g * (1.0f - i_g);
+              dg[1][hh][j] = dc_total * c_p * f_g * (1.0f - f_g);
+              dg[2][hh][j] = dc_total * i_g * (1.0f - g_g * g_g);
+              dg[3][hh][j] = dh_total * tanh_c * o_g * (1.0f - o_g);
+              dcv[e] = dc_total * f_g;
+            }
+            const int r = 16 * mt + 8 * hh + g8;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              P::put2(ab + (size_t)r * lda + k * H + u, dg[k][hh][0], dg[k][hh][1]);
+              if (row < B)
+                *reinterpret_cast<float2*>(dgo + ((size_t)row * T + t) * G + k * H + u) =
+                    make_float2(dg[k][hh][0], dg[k][hh][1]);
+            }
+          }
+          *dc_slot = make_float4(dcv[0], dcv[1], dcv[2], dcv[3]);
+          if (l == 0) {  // dx's partial (rows of the m-tile x d = 2t, 2t + 1) into dxp
+            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            dx_partial<P>(acc, dg, a.w0x, g8 < D, (size_t)g8 * G + u, H);
+            const int r = 16 * mt + g8;
+            *reinterpret_cast<float2*>(dxp + ((size_t)w * SSB_ROWS + r) * SSB_MAX_D + 2 * t4) =
+                make_float2(acc[0], acc[1]);
+            *reinterpret_cast<float2*>(dxp + ((size_t)w * SSB_ROWS + r + 8) * SSB_MAX_D + 2 * t4) =
+                make_float2(acc[2], acc[3]);
+          }
+        }
+      }
+      pr.mark(SB_CELL);
+      __syncthreads();  // the A buffer is whole
+      pr.mark(SB_BARRIERS);
+      if (AHEAD && (l > 0 || t > 0)) load(res, l > 0 ? l - 1 : L - 1, l > 0 ? t : t - 1);
+      // -- dgates · Wᵀ: the warp's n-tiles, then what each feeds
+      const E* ab = abuf + (size_t)buf * SSB_ROWS * lda;
+      const uint4* wl = a.wt[l] + lane;
+      auto epilogue = [&](int id, const float (&v)[2][4]) {
+        if (id < NB) {  // the carried dh of the warp's units, for step t - 1
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            dhs[((size_t)(l * nw + w) * 2 + mt) * 32 + lane] = make_float4(v[mt][0], v[mt][1], v[mt][2], v[mt][3]);
+        } else if (l > 0) {  // `above` of layer l - 1 at the same pairs
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) above[mt] = make_float4(v[mt][0], v[mt][1], v[mt][2], v[mt][3]);
+        } else {  // dctx of context columns 8·ct ..
+          const int ct = id - NB;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            if constexpr (STEP_CTX) {
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                const long long row = grow(mt, hh);
+                if (row < B)
+                  *reinterpret_cast<float2*>(dctx + ((size_t)row * T + t) * C + 8 * ct + 2 * t4) =
+                      make_float2(v[mt][2 * hh], v[mt][2 * hh + 1]);
+              }
+            } else {
+              float4& sm = dsum[((size_t)ct * 2 + mt) * 32 + lane];
+              sm = make_float4(sm.x + v[mt][0], sm.y + v[mt][1], sm.z + v[mt][2], sm.w + v[mt][3]);
+            }
+          }
+        }
+      };
+      if (l == 0) {
+        // dx = the warps' partials summed in warp order; dteacher_t and the
+        // feedback into dy_{t-1} (dy0 at t = 0): lane i·8 + d of warp w takes
+        // row w + nw·i, coordinate d, its coin and dys_{t-1} loaded ahead
+        for (int j = lane, first = 1; j < (SSB_ROWS / nw) * SSB_MAX_D; j += 32, first = 0) {
+          const int d = j % SSB_MAX_D, r = w + nw * (j / SSB_MAX_D);
+          const long long row = row0 + r;
+          if (d >= D) continue;
+          float dx = 0.0f;
+          for (int v = 0; v < nw; ++v) dx += dxp[((size_t)v * SSB_ROWS + r) * SSB_MAX_D + d];
+          float next = 0.0f;
+          if (row < B) {
+            const size_t q = (size_t)t * B + row;
+            const float coin = first ? fb_coin : coins[q];
+            dteacher[q * D + d] = dx * coin;
+            const float fb = dx * (1.0f - coin);
+            if (t > 0) {
+              const size_t qy = ((size_t)row * T + t - 1) * D + d;
+              next = (first ? fb_dys : dys[qy]) + fb;
+              dy[qy] = next;
+            } else {
+              dy0[(size_t)row * D + d] = fb;
+            }
+          }
+          if (t > 0) dys_s[r * SSB_MAX_D + d] = next;
+        }
+        pr.mark(SB_EPILOGUE);
+      }
+      // the warp's n-tiles: its dh, then `above` (l > 0) or its dctx tile
+      const int id1 = l > 0 || w < CB ? NB + w : -1;
+      // the product of NT n-tiles through the warp's ring of 4 stages, or 2
+      auto product = [&](auto& acc, const auto& wn) {
+        constexpr int NT = std::extent<std::remove_reference_t<decltype(wn)>>::value;
+        if (stages == 4)
+          ssb_product<P, NT, 4>(acc, ab, lda, wn, kpairs, lane, ring);
+        else
+          ssb_product<P, NT, 2>(acc, ab, lda, wn, kpairs, lane, ring);
+      };
+      if (id1 >= 0) {
+        float acc[2][2][4];
+        const uint4* const wn[2] = {wl + (size_t)w * tile_u4, wl + (size_t)id1 * tile_u4};
+        product(acc, wn);
+        pr.mark(SB_PRODUCTS);
+        epilogue(w, acc[0]);
+        epilogue(id1, acc[1]);
+      } else {
+        float acc[1][2][4];
+        const uint4* const wn[1] = {wl + (size_t)w * tile_u4};
+        product(acc, wn);
+        pr.mark(SB_PRODUCTS);
+        epilogue(w, acc[0]);
+      }
+      pr.mark(SB_EPILOGUE);
+      if (nbuf == 1)
+        __syncthreads();  // every warp has read the A buffer before the next cell writes it
+      else
+        buf ^= 1;
+      pr.mark(SB_BARRIERS);
+    }
+    __syncthreads();  // dy_{t-1} of every row in dys_s
+    pr.mark(SB_BARRIERS);
   }
+
+  // dh0, dc0 from the slots; the static context's dctx from its sums
   for (int l = 0; l < L; ++l)
 #pragma unroll
-    for (int r = 0; r < TR; ++r) {
-      const long long row = row0 + r0 + r;
-      if (row >= B) continue;
-      float vh[TJ], vc[TJ];
+    for (int mt = 0; mt < 2; ++mt) {
+      const size_t slot = ((size_t)(l * nw + w) * 2 + mt) * 32 + lane;
+      const float4 vh = dhs[slot], vc = dcs[slot];
 #pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        vh[j] = dh_s[l * HR + (r * TJ + j) * nthr + tid];
-        vc[j] = dc_s[l * HR + (r * TJ + j) * nthr + tid];
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long row = grow(mt, hh);
+        if (row >= B) continue;
+        const size_t o = ((size_t)l * B + row) * H + u;
+        *reinterpret_cast<float2*>(dh0 + o) = hh ? make_float2(vh.z, vh.w) : make_float2(vh.x, vh.y);
+        *reinterpret_cast<float2*>(dc0 + o) = hh ? make_float2(vc.z, vc.w) : make_float2(vc.x, vc.y);
       }
-      F::st4(dh0 + ((size_t)l * B + row) * H + j0, vh);
-      F::st4(dc0 + ((size_t)l * B + row) * H + j0, vc);
+    }
+  if (!STEP_CTX && w < CB)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const float4 v = dsum[((size_t)w * 2 + mt) * 32 + lane];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long row = grow(mt, hh);
+        if (row < B)
+          *reinterpret_cast<float2*>(dctx + (size_t)row * C + 8 * w + 2 * t4) =
+              hh ? make_float2(v.z, v.w) : make_float2(v.x, v.y);
+      }
     }
 }
 
@@ -1067,41 +1478,6 @@ static int ss_fwd_go(const float* h0, const float* c0, const float* y0,
                           batch, t_len, d, ctx_dim, hidden, layers, rows);
 }
 
-template <bool STEP_CTX, typename CT>
-static int ss_bwd_go(const float* dys, const float* c0, const float* coins,
-                     const void* w0, const void* const* wt, const void* wtc,
-                     const void* proj_w, const void* const* cs,
-                     const void* const* gs, void* const* dg, float* dy,
-                     float* dteacher, float* dy0, float* dh0, float* dc0,
-                     float* dctx, int batch, int t_len, int d, int ctx_dim,
-                     int hidden, int layers, int rows, int bf16,
-                     cudaStream_t st) {
-  SsBwdArgs<CT> a;
-  a.w0 = static_cast<const CT*>(w0);
-  a.wtc = static_cast<const CT*>(wtc);
-  a.proj_w = static_cast<const CT*>(proj_w);
-  for (int l = 0; l < MAX_LAYERS; ++l) {
-    const bool on = l < layers;
-    a.wt[l] = on ? static_cast<const CT*>(wt[l]) : nullptr;
-    a.cs[l] = on ? cs[l] : nullptr;
-    a.gs[l] = on ? gs[l] : nullptr;
-    a.dg[l] = on ? static_cast<float*>(dg[l]) : nullptr;
-  }
-  const size_t smem = ((size_t)4 * hidden + (size_t)2 * layers * hidden +
-                       ctx_dim + 2 * d) * rows * sizeof(float);
-  const int threads = (rows / TR) * (hidden / TJ);
-  const int grid = (batch + rows - 1) / rows;
-  if (bf16)
-    return launch_with_smem(ss_bwd_kernel<__nv_bfloat16, STEP_CTX, CT>, grid,
-                            threads, smem, st, dys, c0, coins, a, dy, dteacher,
-                            dy0, dh0, dc0, dctx, batch, t_len, d, ctx_dim,
-                            hidden, layers, rows);
-  return launch_with_smem(ss_bwd_kernel<float, STEP_CTX, CT>, grid, threads,
-                          smem, st, dys, c0, coins, a, dy, dteacher, dy0, dh0,
-                          dc0, dctx, batch, t_len, d, ctx_dim, hidden, layers,
-                          rows);
-}
-
 // rows: batch rows per block, a multiple of 4. The block has (rows / 4) *
 // (hidden / 4) threads and (2 * layers * hidden + 2 * d + ctx_dim) * rows
 // floats of dynamic shared memory. coins (t_len, batch), teacher (t_len,
@@ -1128,29 +1504,55 @@ static int ss_fwd_launch(const void* h0, const void* c0, const void* y0,
             static_cast<cudaStream_t>(stream));
 }
 
-// Same block shape as ss_fwd_launch, with (4 * hidden + 2 * layers * hidden
-// + ctx_dim + 2 * d) * rows floats of dynamic shared memory. w0 is layer 0's
-// W; wt its transposed blocks (see SsBwdArgs); wtc null when ctx_dim == 0;
-// the weights bf16 when cbf16, else f32. dctx is (batch, ctx_dim) or,
-// STEP_CTX, (batch, t_len, ctx_dim).
+// The backward recurrence (ss_bwd_kernel): 32 batch rows a block of
+// hidden / 8 warps (hidden a multiple of 32 up to 128), ssb_smem_bytes of
+// dynamic shared memory with nbuf (1 or 2) A buffers and W rings of
+// `stages` (2 or 4) k-pairs. wt: every layer's Wᵀ packed for the tier
+// (ops/lstm_ss.py pack_bwd_weights; f32, or bf16 when cbf16); w0x layer 0's
+// W[:d] and proj_w in the tier's type; ctx_dim a multiple of 8 up to hidden
+// (the dctx n-tiles, one a warp), d <= 8. dctx is (batch,
+// ctx_dim) or, STEP_CTX, (batch, t_len, ctx_dim).
+static inline bool ss_bwd_bad_shape(int batch, int t_len, int d, int ctx_dim, int hidden, int layers, int nbuf,
+                                    int stages) {
+  return layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden > 128 || hidden % 32 || batch < 1 ||
+         t_len < 1 || d < 1 || d > SSB_MAX_D || ctx_dim < 0 || ctx_dim % 8 || ctx_dim > hidden || nbuf < 1 ||
+         nbuf > 2 || (stages != 2 && stages != 4) || (long long)batch * t_len >= (1LL << 31);
+}
+
 template <bool STEP_CTX>
-static int ss_bwd_launch(const void* dys, const void* c0, const void* coins,
-                         const void* w0, const void* const* wt, const void* wtc,
-                         const void* proj_w, const void* const* cs,
-                         const void* const* gs, void* const* dg, void* dy,
-                         void* dteacher, void* dy0, void* dh0, void* dc0,
-                         void* dctx, int batch, int t_len, int d, int ctx_dim,
-                         int hidden, int layers, int rows, int bf16, int cbf16,
+static int ss_bwd_launch(const void* dys, const void* c0, const void* coins, const void* const* wt,
+                         const void* w0x, const void* proj_w, const void* const* cs, const void* const* gs, void* const* dg, void* dy,
+                         void* dteacher, void* dy0, void* dh0, void* dc0, void* dctx, int batch, int t_len, int d,
+                         int ctx_dim, int hidden, int layers, int nbuf, int stages, int bf16, int cbf16,
                          void* stream) {
-  if (ss_bad_shape(batch, t_len, d, ctx_dim, hidden, layers, rows))
-    return (int)cudaErrorInvalidValue;
-  const auto go = cbf16 ? &ss_bwd_go<STEP_CTX, __nv_bfloat16> : &ss_bwd_go<STEP_CTX, float>;
-  return go(static_cast<const float*>(dys), static_cast<const float*>(c0),
-            static_cast<const float*>(coins), w0, wt, wtc, proj_w, cs, gs, dg,
-            static_cast<float*>(dy), static_cast<float*>(dteacher),
-            static_cast<float*>(dy0), static_cast<float*>(dh0),
-            static_cast<float*>(dc0), static_cast<float*>(dctx), batch, t_len, d,
-            ctx_dim, hidden, layers, rows, bf16, static_cast<cudaStream_t>(stream));
+  if (ss_bwd_bad_shape(batch, t_len, d, ctx_dim, hidden, layers, nbuf, stages)) return (int)cudaErrorInvalidValue;
+  const long long smem = cbf16 ? ssb_smem_bytes<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, STEP_CTX, nbuf, stages)
+                               : ssb_smem_bytes<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, STEP_CTX, nbuf, stages);
+  if (smem > lstm_mma::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  SsBwdArgs a = {};
+  for (int l = 0; l < layers; ++l) {
+    a.wt[l] = static_cast<const uint4*>(wt[l]);
+    a.cs[l] = cs[l];
+    a.gs[l] = gs[l];
+    a.dg[l] = static_cast<float*>(dg[l]);
+  }
+  a.w0x = w0x;
+  a.proj_w = proj_w;
+  const int grid = (batch + SSB_ROWS - 1) / SSB_ROWS, threads = 32 * (hidden / 8);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float *f_dys = static_cast<const float*>(dys), *f_c0 = static_cast<const float*>(c0),
+              *f_coins = static_cast<const float*>(coins);
+  float *o_dy = static_cast<float*>(dy), *o_dt = static_cast<float*>(dteacher), *o_dy0 = static_cast<float*>(dy0),
+        *o_dh0 = static_cast<float*>(dh0), *o_dc0 = static_cast<float*>(dc0), *o_dctx = static_cast<float*>(dctx);
+#define SSB(RT, P)                                                                                              \
+  launch_with_smem(ss_bwd_kernel<RT, STEP_CTX, P>, grid, threads, (size_t)smem, st, f_dys, f_c0, f_coins, a, o_dy, \
+                   o_dt, o_dy0, o_dh0, o_dc0, o_dctx, batch, t_len, d, ctx_dim, hidden, layers, nbuf, stages)
+  using BF = __nv_bfloat16;
+  if (bf16 && cbf16) return SSB(BF, lstm_mma::Bf16Mma);
+  if (bf16) return SSB(BF, lstm_mma::Tf32Mma);
+  if (cbf16) return SSB(float, lstm_mma::Bf16Mma);
+  return SSB(float, lstm_mma::Tf32Mma);
+#undef SSB
 }
 
 // dW/db of every decoder layer (the reduction above; layer 0's input rebuilt

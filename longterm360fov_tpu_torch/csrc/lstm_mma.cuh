@@ -1,8 +1,9 @@
 // The LSTM encoders and serve kernel on the tensor cores (sm_90a), in both
 // compute tiers: the layer step of peer_context_kernel and fused_encode_kernel
 // <__nv_bfloat16> (fused_serve.cu), an LSTM over many independent rows from
-// zero state with no feedback, and the serve kernel (server below): per
-// step t and layer l,
+// zero state with no feedback (also the training tier's lockstep peer
+// forward, align_peer_fwd_kernel in lstm_align.cu, with its residual
+// stores), and the serve kernel (server below): per step t and layer l,
 //   gates = [in_t, h_l,t-1] @ W_l + b_l;  c = f * c + i * g;  h = o * tanh(c).
 // Each body is a template on its product (Bf16Mma or Tf32Mma below): the
 // bf16 tier's products on mma.sync m16n8k16 with bf16 operands, and the f32
@@ -113,8 +114,6 @@ using LstmProbe = ClockProbe<true>;
 #else
 using LstmProbe = ClockProbe<false>;
 #endif
-
-__device__ __forceinline__ float sigmoid_f32(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 namespace lstm_mma {
 
@@ -431,13 +430,20 @@ __device__ __forceinline__ void cell(const float (&acc)[MT][UT][4][4], int r0, i
 // of peer rows p = p0 + r (p < nrows), and after every step ctx_t of the
 // block's viewers into out (B, T, C). Else (fused_encode, bf16): rows = rp
 // batch rows from p0 (p < nrows), and the rounded top-layer h into out (B, H).
-template <typename P, int MT, bool PEER>
+// RT (PEER only; void: none): the training tier's residuals, every step's h
+// (from the staging) and c (from the lanes' slots) into php and pcp (nrows,
+// T, H) in RT, 16-byte pieces along whole rows, during the publish
+// (ops/lstm_align.py peer_fwd).
+template <typename P, int MT, bool PEER, typename RT = void>
 __device__ __forceinline__ void encoder(const float* __restrict__ xs, const float* __restrict__ pwt,
                                         float* __restrict__ out, const uint4* __restrict__ wg,
                                         const float* const* bias, long long p0, int nrows, int rows, int T,
-                                        int D, int H, int L, int K, int RV, int B, const Geom& geo) {
+                                        int D, int H, int L, int K, int RV, int B, const Geom& geo,
+                                        RT* __restrict__ php = nullptr, RT* __restrict__ pcp = nullptr) {
   using TL = BodyTile<P, MT>;
   using E = typename P::E;
+  constexpr bool RES = !std::is_void<RT>::value;
+  static_assert(PEER || !RES, "residual stores are the lockstep peer forward's");
   extern __shared__ float4 smem4[];
   const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
   const int rp = geo.rp, kx = kx_of<P>(D), ldz = ldz_of<P>(D, H, L);
@@ -544,6 +550,47 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
               P::put4(zh + r * ldz + u, h);
             }
             *reinterpret_cast<float4*>(out + ((size_t)(b0 + v) * T + t) * H + u) = s;
+          }
+        }
+        if constexpr (RES) {
+          // the residual h (from the staging) and c (from the lanes' slots)
+          // of every real row in RT, 16-byte pieces of EV units, consecutive
+          // threads along a row: whole rows of a step stored together
+          constexpr int EV = 16 / sizeof(RT);
+          for (int i = tid; i < rows * (H / EV); i += nthr) {
+            const int r = i / (H / EV), u = (i % (H / EV)) * EV;
+            if (p0 + r >= nrows) continue;
+            // slot of (row r, units u + 2j, + 1): tile, m-tile, unit block, lane (g, t)
+            const int r_in = r % TL::ROWS, ut = u % TL::UNITS / 8, hh = r_in / 8 % 2;
+            const float4* slot = cm + ((size_t)((r / TL::ROWS) * bands + u / TL::UNITS) * MT * TL::UT +
+                                       (r_in / 16) * TL::UT + ut) * 32 + (r_in % 8) * 4;
+            float hv[EV], cv[EV];
+#pragma unroll
+            for (int j = 0; j < EV; j += 4) {
+              const float4 h = *reinterpret_cast<const float4*>(hst + r * H + swz(r, u + j));
+              hv[j] = h.x, hv[j + 1] = h.y, hv[j + 2] = h.z, hv[j + 3] = h.w;
+            }
+#pragma unroll
+            for (int j = 0; j < EV; j += 2) {
+              const float4 c = slot[(u + j) % 8 / 2];
+              cv[j] = hh ? c.z : c.x, cv[j + 1] = hh ? c.w : c.y;
+            }
+            const size_t o = ((size_t)(p0 + r) * T + t) * H + u;
+            if constexpr (std::is_same<RT, float>::value) {
+              *reinterpret_cast<float4*>(php + o) = make_float4(hv[0], hv[1], hv[2], hv[3]);
+              *reinterpret_cast<float4*>(pcp + o) = make_float4(cv[0], cv[1], cv[2], cv[3]);
+            } else {
+              unsigned hw[4], cw[4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const __nv_bfloat162 hb = __floats2bfloat162_rn(hv[2 * j], hv[2 * j + 1]);
+                const __nv_bfloat162 cb = __floats2bfloat162_rn(cv[2 * j], cv[2 * j + 1]);
+                hw[j] = *reinterpret_cast<const unsigned*>(&hb);
+                cw[j] = *reinterpret_cast<const unsigned*>(&cb);
+              }
+              *reinterpret_cast<uint4*>(php + o) = make_uint4(hw[0], hw[1], hw[2], hw[3]);
+              *reinterpret_cast<uint4*>(pcp + o) = make_uint4(cw[0], cw[1], cw[2], cw[3]);
+            }
           }
         }
       } else {

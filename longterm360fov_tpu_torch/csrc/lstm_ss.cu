@@ -13,14 +13,14 @@
 //     y_t = h_top · proj_w + proj_b from the f32 h, which is fed back. It
 //     writes ys (B, T, D) f32 and, per layer, h, c (B, T, H) and the gates
 //     i, f, g, o (B, T, 4H) in the residual type.
-//   * ss_bwd_kernel: the backward recurrence in reverse time. The total
-//     gradient of y_t is the upstream dys_t plus the feedback from step t+1;
-//     the top layer's h gets dy_t · proj_wᵀ plus the carried dh; each
-//     layer's cell backward is lstm_train.cu's; layer 0's input gradient
+//   * ss_bwd_kernel: the backward recurrence in reverse time, on the tensor
+//     cores (lstm_common.cuh's header says how). The total gradient of y_t
+//     is the upstream dys_t plus the feedback from step t+1; the top layer's
+//     h gets dy_t · proj_wᵀ plus the carried dh; layer 0's input gradient
 //     [dx, dctx] = dgates · W0[:D+C]ᵀ splits into dteacher_t = dx · coin_t,
 //     the feedback dx · (1 - coin_t) to y_{t-1} (dy0 at t = 0) and dctx,
-//     which the block that owns the row sums over t. It writes dgates per
-//     layer, dy (B, T, D) (the total gradient of every y_t), dteacher
+//     which the warp that owns the columns sums over t. It writes dgates
+//     per layer, dy (B, T, D) (the total gradient of every y_t), dteacher
 //     (T, B, D), dy0, dh0, dc0 and dctx. Coins get no gradient.
 //   * the dW/db reduction of lstm_common.cuh, whose layer-0 z is
 //     [x_t, ctx, h_{t-1}] with x_t rebuilt from coin, teacher and the f32
@@ -43,18 +43,23 @@
 //   * Arithmetic. A pass is 2·B·T·((D + C + H) + 2H)·4H = 64.8 GFLOP (the
 //     forward's gate products; the backward's dgates · Wᵀ; the dW
 //     reduction), exact f32 on the FMA units (67 TFLOP/s): at least 0.97 ms
-//     each. The projection and its gradient are 2·B·T·H·D, under 1 %.
+//     each; the backward's on the tensor cores, 0.39 ms in three-pass TF32
+//     at 495 / 3 TFLOP/s. The projection and its gradient are 2·B·T·H·D,
+//     under 1 %.
 //   * Bytes. bf16 residuals are 6H·2 bytes per layer and row-step: 377 MB a
 //     pass, and dgates (4H f32) 503 MB, 0.1-0.3 ms at 3.35 TB/s: under the
 //     FMA time.
 //   * The serial chain. Step t - 1 of the backward cannot start before layer
 //     0 of step t has produced dx, so the feedback runs through every layer
 //     of every step, and the dy · proj_wᵀ term sits on that path.
-// What the design does about it: lstm_train.cu's tiles (a thread owns 4 rows
-// x 4 hidden units, a block 16 rows: 256 blocks of 128 threads at
-// B = 4096, two per SM), every carry on chip (h, c, dh, dc, the feedback y
-// and dy, dctx in shared memory), W streamed from L2 with 16-byte loads; the
-// feedback and projection are D = 3 wide and ride in the same block.
+// What the design does about it: for the forward, lstm_train.cu's tiles (a
+// thread owns 4 rows x 4 hidden units, a block 16 rows: 256 blocks of 128
+// threads at B = 4096, two per SM), every carry on chip (h, c, the feedback
+// y in shared memory), W streamed from L2 with 16-byte loads; the feedback
+// and projection are D = 3 wide and ride in the same block. The backward is
+// lstm_common.cuh's tensor-core body (32-row blocks of 16 warps, carries in
+// shared memory, W packed once a call and streamed through each warp's
+// ring).
 
 #include "lstm_common.cuh"
 
@@ -200,16 +205,21 @@ int ss_fwd(const void* h0, const void* c0, const void* y0, const void* teacher,
                               hidden, layers, rows, bf16, cbf16, stream);
 }
 
-int ss_bwd(const void* dys, const void* c0, const void* coins, const void* w0,
-           const void* const* wt, const void* wtc, const void* proj_w,
-           const void* const* cs, const void* const* gs, void* const* dg,
-           void* dy, void* dteacher, void* dy0, void* dh0, void* dc0,
-           void* dctx, int batch, int t_len, int d, int ctx_dim, int hidden,
-           int layers, int rows, int bf16, int cbf16, void* stream) {
-  return ss_bwd_launch<false>(dys, c0, coins, w0, wt, wtc, proj_w, cs, gs, dg,
-                              dy, dteacher, dy0, dh0, dc0, dctx, batch, t_len,
-                              d, ctx_dim, hidden, layers, rows, bf16, cbf16,
-                              stream);
+int ss_bwd(const void* dys, const void* c0, const void* coins, const void* const* wt, const void* w0x,
+           const void* proj_w, const void* const* cs, const void* const* gs, void* const* dg, void* dy,
+           void* dteacher, void* dy0, void* dh0, void* dc0, void* dctx, int batch, int t_len, int d,
+           int ctx_dim, int hidden, int layers, int nbuf, int stages, int bf16, int cbf16, void* stream) {
+  return ss_bwd_launch<false>(dys, c0, coins, wt, w0x, proj_w, cs, gs, dg, dy, dteacher, dy0, dh0, dc0, dctx, batch,
+                              t_len, d, ctx_dim, hidden, layers, nbuf, stages, bf16, cbf16, stream);
+}
+
+// The backward recurrence's dynamic shared memory (ssb_smem_bytes) in the
+// tier (cbf16: bf16) with nbuf A buffers and W rings of `stages` k-pairs,
+// per step (step_ctx) or static context; -1 for a shape it does not take.
+long long ss_bwd_smem(int hidden, int layers, int d, int ctx_dim, int step_ctx, int nbuf, int stages, int cbf16) {
+  if (ss_bwd_bad_shape(1, 1, d, ctx_dim, hidden, layers, nbuf, stages)) return -1;
+  return cbf16 ? ssb_smem_bytes<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, step_ctx != 0, nbuf, stages)
+               : ssb_smem_bytes<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, step_ctx != 0, nbuf, stages);
 }
 
 int ss_dw(const void* h0, const void* y0, const void* teacher,

@@ -57,7 +57,6 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-import math
 from typing import NamedTuple, Sequence
 
 import torch
@@ -72,7 +71,6 @@ __all__ = [
     "fused_serve_reference",
     "peer_context",
     "peer_context_reference",
-    "peer_rows",
     "peer_tc_rows",
     "encode_tc_rows",
     "serve_tc_rows",
@@ -402,31 +400,6 @@ def _launch_serve(enc_params, dec_params, proj_w, proj_b, past_n, t_out, context
 
 
 fused_serve.launches = fused_serve.launches_bf16 = 0
-
-
-def peer_rows(ctx_dim: int, n_peers: int, *, tile_rows: int = _TR) -> int:
-    """Viewers per block of an FMA peer kernel that holds all K peers of
-    each of its viewers (K·RV rows, a multiple of the thread's
-    ``tile_rows``): as many as 256 threads of ``tile_rows`` rows x 4 units
-    cover, within the block's shared memory. ``ops.lstm_align``'s peer
-    forward takes 4 rows a thread (the serve tier's peer context has its
-    own blocks: :func:`peer_tf32_rows`, :func:`peer_tc_rows`). Raises for
-    shapes the kernels do not take: above 8 peers at C = 128."""
-    if ctx_dim < 32 or ctx_dim % 32:
-        raise ValueError(f"the peer kernels need ctx_dim % 32 == 0, got {ctx_dim}")
-    if n_peers < 1:
-        raise ValueError(f"the peer kernels need K >= 1 peers, got {n_peers}")
-    max_rows = _MAX_THREADS // (ctx_dim // _TJ) * tile_rows
-    step = tile_rows // math.gcd(n_peers, tile_rows)  # the fewest viewers whose K·RV rows fill whole tiles
-    rv = max_rows // n_peers // step * step
-    while rv >= step and 4 * (2 * ctx_dim + 4) * rv * n_peers > _SMEM_LIMIT:
-        rv -= step
-    if rv < step:
-        raise ValueError(
-            f"a peer kernel holds all K peers of {step} viewers in one block of at most "
-            f"{max_rows} rows at ctx_dim={ctx_dim}: K = {n_peers} peers is more than it takes"
-        )
-    return rv
 
 
 class TcGeom(NamedTuple):

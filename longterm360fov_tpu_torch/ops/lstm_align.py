@@ -20,7 +20,9 @@ kernels of ``csrc/lstm_align.cu`` (whose header says what bounds them and
 what their design does about it):
 
 * :func:`peer_fwd`: the peer recurrence → the peer h and c (B·K, T, C) in
-  ``residual_dtype`` and ctx (B, T, C) f32, from the f32 h;
+  ``residual_dtype`` and ctx (B, T, C) f32, from the f32 h; the serve
+  tier's peer context body on the tensor cores (``ops.fused_lstm``'s packs
+  and blocks, :func:`peer_fwd_block`) with the residual stores;
 * :func:`dec_fwd`, :func:`dec_bwd`: ``ops.lstm_ss``'s recurrences with the
   per-step context; the backward writes dctx (B, T, C) per step;
 * :func:`peer_bwd`: the peer backward in reverse time, with the gates
@@ -51,7 +53,7 @@ import torch
 
 from ..models.cell import LSTMParams, lstm_cell, mm
 from . import _build, lstm_ss
-from .fused_lstm import peer_rows
+from .fused_lstm import TcGeom, pack_weights, pack_weights_tf32, peer_tc_rows, peer_tf32_rows
 from .lstm_train import (
     RESIDUAL_DTYPES,
     Residuals,
@@ -67,7 +69,6 @@ from .lstm_train import (
     dw_pack,
     dw_splits,
     dw_zld,
-    in_compute,
     widen,
 )
 
@@ -75,6 +76,7 @@ __all__ = [
     "aligned_ss_decode",
     "aligned_ss_decode_reference",
     "peer_fwd",
+    "peer_fwd_block",
     "dec_fwd",
     "dec_bwd",
     "peer_bwd",
@@ -83,7 +85,6 @@ __all__ = [
 ]
 
 _SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use (227 KB)
-_TR = 4  # rows per thread of the peer forward
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +297,22 @@ def _raise_on(err: int, name: str):
         )
 
 
+def peer_fwd_block(c_dim: int, n_peers: int, d: int, compute_dtype=torch.float32) -> TcGeom:
+    """The block of the peer forward: the serve tier's peer context block
+    (``ops.fused_lstm``: :func:`peer_tf32_rows` in f32, 32 x 8 tiles of
+    16 warps; :func:`peer_tc_rows` in bf16), all K peers of whole viewers.
+    Raises for shapes it does not take, those the peer backward refuses
+    too: ctx_dim outside 32, 64, 96, 128, d outside 1..8, and the
+    choosers' own (f32: K = 1..8)."""
+    if c_dim not in PEER_BWD_CTX:
+        raise ValueError(f"the peer forward takes ctx_dim in {PEER_BWD_CTX}, got {c_dim}")
+    if not 1 <= d <= 8:
+        raise ValueError(f"the peer forward takes 1 <= d <= 8 window features, got {d}")
+    if compute_dtype == torch.bfloat16:
+        return peer_tc_rows(c_dim, n_peers, d)
+    return peer_tf32_rows(c_dim, n_peers, d)
+
+
 def peer_fwd(peer_params: LSTMParams, pxs, pwt, residual_dtype=torch.float32,
              compute_dtype=torch.float32):
     """Peer forward → (php, pcp (B·K, T, C) in ``residual_dtype``, ctx
@@ -304,21 +321,25 @@ def peer_fwd(peer_params: LSTMParams, pxs, pwt, residual_dtype=torch.float32,
         raise TypeError(f"residual_dtype must be one of {RESIDUAL_DTYPES}, got {residual_dtype}")
     check_compute(compute_dtype)
     rows, t_len, d, c_dim = _check_peer(peer_params, pxs, _pwt_spec(pwt, pxs.shape[0]))
-    batch, k = pwt.shape
     if pxs.device.type == "cpu":
         return _peer_fwd_reference(peer_params, pxs, pwt, residual_dtype, compute_dtype)
-    rv = peer_rows(c_dim, k, tile_rows=_TR)
+    # W packed once a call, the block from peer_fwd_block
+    batch, k = pwt.shape
+    bf16 = compute_dtype == torch.bfloat16
+    geo = peer_fwd_block(c_dim, k, d, compute_dtype)
+    w = pack_weights([peer_params], d) if bf16 else pack_weights_tf32([peer_params], d)
     dev = pxs.device
     php = torch.empty((rows, t_len, c_dim), device=dev, dtype=residual_dtype)
     pcp = torch.empty_like(php)
     ctx = torch.empty((batch, t_len, c_dim), device=dev)
-    (wp,) = in_compute([peer_params.w], compute_dtype)
-    _check_card([pxs, pwt, wp, peer_params.b, php, pcp, ctx])
+    c_glob = None if geo.c_smem else torch.empty(-(-batch // geo.rows_v) * geo.rp * c_dim, device=dev)
+    _check_card([pxs, pwt, w, peer_params.b, php, pcp, ctx] + ([] if c_glob is None else [c_glob]))
     with torch.cuda.device(dev):
         err = _library().align_peer_fwd(
-            pxs.data_ptr(), pwt.data_ptr(), wp.data_ptr(), peer_params.b.data_ptr(),
-            php.data_ptr(), pcp.data_ptr(), ctx.data_ptr(), batch, k, t_len, d, c_dim, rv,
-            int(residual_dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), _stream(),
+            pxs.data_ptr(), pwt.data_ptr(), w.data_ptr(), peer_params.b.data_ptr(), php.data_ptr(),
+            pcp.data_ptr(), ctx.data_ptr(), None if c_glob is None else c_glob.data_ptr(), batch, k, t_len, d,
+            c_dim, geo.rows_v, geo.rp, geo.mt, geo.warps, int(geo.w_res),
+            int(residual_dtype == torch.bfloat16), int(bf16), _stream(),
         )
     _raise_on(err, "peer_fwd")
     count_launch(peer_fwd, compute_dtype)
@@ -525,9 +546,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     or one-pass build of it) with its entry points typed."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
-    lib.align_peer_fwd.argtypes = [vp] * 7 + [i32] * 8 + [vp]
+    lib.align_peer_fwd.argtypes = [vp] * 8 + [i32] * 12 + [vp]
+    lib.align_peer_fwd_smem.argtypes = [i32] * 10
+    lib.align_peer_fwd_smem.restype = ctypes.c_longlong
     lib.align_dec_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 9 + [vp]
-    lib.align_dec_bwd.argtypes = [vp, vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 9 + [vp]
+    lib.align_dec_bwd.argtypes = [vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 10 + [vp]
     lib.align_peer_bwd.argtypes = [vp] * 11 + [i32] * 8 + [vp]
     lib.peer_bwd_smem.argtypes = [i32] * 4
     lib.peer_bwd_stream_bytes.argtypes = [i32] * 2
@@ -536,8 +559,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for f in (lib.align_peer_fwd, lib.align_dec_fwd, lib.align_dec_bwd, lib.align_peer_bwd,
               lib.align_dec_dw, lib.align_peer_dw, lib.peer_bwd_smem, lib.peer_bwd_stream_bytes):
         f.restype = i32
-    lib.lstm_align_probe_read.argtypes = [vp]
-    lib.lstm_align_probe_read.restype = i32
+    for f in (lib.lstm_align_probe_read, lib.ss_bwd_probe_read):
+        f.argtypes = [vp]
+        f.restype = i32
     lib.lstm_align_error_string.argtypes = [i32]
     lib.lstm_align_error_string.restype = ctypes.c_char_p
     return lib

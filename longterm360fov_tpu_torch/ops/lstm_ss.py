@@ -24,7 +24,9 @@ Four kernels of ``csrc/lstm_ss.cu`` carry it on the card:
 * :func:`ss_bwd`, the backward recurrence in reverse time: the total
   gradient ``dy`` of every ``y_t`` (upstream plus the feedback from step
   t + 1), ``dgates`` per layer, ``dteacher (T, B, D)``, ``dy0``, ``dh0``,
-  ``dc0`` and ``dctx``;
+  ``dc0`` and ``dctx``; its products ``dgates · Wᵀ`` on the tensor cores
+  (three-pass TF32 in f32, bf16 mma in bf16), W packed by
+  :func:`pack_bwd_weights`, its block from :func:`bwd_block`;
 * :func:`ss_dw`, the dW/db reduction of ``lstm_train``'s kernel with layer
   0's ``z = [x_t, ctx, h_{t-1}]``, ``x_t`` rebuilt from the coins, the
   teacher and the f32 ``ys`` (``y0`` at t = 0), as the TPU backward rebuilds
@@ -48,7 +50,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,6 +84,8 @@ __all__ = [
     "ss_dw",
     "ss_dproj",
     "kernel_rows",
+    "bwd_block",
+    "pack_bwd_weights",
 ]
 
 _SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use (227 KB)
@@ -246,14 +250,13 @@ def _dproj_reference(hs_top: torch.Tensor, dy: torch.Tensor, compute_dtype=torch
 
 
 def kernel_rows(hidden: int, layers: int, d: int, ctx_dim: int) -> int:
-    """Batch rows per block of the recurrence kernels: ``lstm_train``'s
-    choice (16 rows, 4 x 4 per thread), halved until the larger of the
-    forward's and the backward's shared memory fits (h, c, dh, dc of every
-    layer, the step's dgates, the layer-0 input ``[x, ctx]``, the feedback,
-    ``dctx``). Raises for shapes the kernels do not take."""
+    """Batch rows per block of the forward recurrence kernel: ``lstm_train``'s
+    choice (16 rows, 4 x 4 per thread), halved until its shared memory fits
+    (h, c of every layer, the layer-0 input ``[x, ctx]``, the feedback).
+    Raises for shapes the kernel does not take. (The backward's block is
+    :func:`bwd_block`'s.)"""
     rows = _lstm_kernel_rows(hidden, layers, d)
-    per_row = max(2 * layers * hidden + 2 * d + ctx_dim,
-                  4 * hidden + 2 * layers * hidden + ctx_dim + 2 * d)
+    per_row = 2 * layers * hidden + 2 * d + ctx_dim
     while rows >= 4 and 4 * rows * per_row > _SMEM_LIMIT:
         rows //= 2
     if rows < 4:
@@ -392,20 +395,112 @@ def fwd_launch(fn, name, params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, 
 ss_fwd.launches = ss_fwd.launches_bf16 = 0
 
 
-def _transposed(params: Sequence[LSTMParams], d_in0: int, ctx_dim: int):
-    """The weights the backward's ``dgates · Wᵀ`` reads row by row: layer 0
-    ``W[D+C:]ᵀ`` (4H, H), which gives dh; layer l > 0 ``[W[H:]; W[:H]]ᵀ``
-    (4H, 2H), which gives dh and the gradient of the layer's input; and
-    layer 0's ``W[D:D+C]ᵀ`` (4H, C), which gives dctx, or None without a
-    context. (Layer 0's x gradient reads ``W[:D]`` as it is.)"""
+class SsBwdGeom(NamedTuple):
+    """A block of the backward recurrence on the tensor cores
+    (``csrc/lstm_common.cuh`` ss_bwd_kernel): ``rows`` batch rows (two m16
+    tiles) in ``warps`` warps (one a unit block of 8), ``nbuf`` A buffers of
+    dgates (2: one barrier a layer-step), each warp's ring of W's pieces
+    ``stages`` k-pairs deep (W read ``stages - 1`` k-pairs ahead of the
+    mma), and the block's dynamic shared memory in bytes."""
+    rows: int
+    warps: int
+    nbuf: int
+    stages: int
+    smem: int
+
+
+_BWD_ROWS = 32  # csrc/lstm_common.cuh SSB_ROWS
+_BWD_MAX_D = 8  # SSB_MAX_D: coordinates a token
+
+
+# (A buffers, ring stages) in the order preferred: W's L2 latency hidden
+# four k-pairs deep outweighs a second barrier a layer-step
+_BWD_LAYOUTS = ((2, 4), (1, 4), (2, 2), (1, 2))
+
+
+def _bwd_smem(hidden: int, layers: int, ctx_dim: int, step_ctx: bool, nbuf: int, stages: int, f32: bool) -> int:
+    """``ssb_smem_bytes``: ``nbuf`` A buffers of 32 rows x (4H + a 16-byte
+    pad) in the tier's type, the carried dh and dc of every layer (f32), the
+    static context's dctx sums, dy_t of the rows, the warps' partials of dx
+    and each warp's ring of ``stages`` k-pairs of two n-tiles (1 KB a
+    k-pair); hidden / 8 warps."""
+    e, warps = (4 if f32 else 2), hidden // 8
+    return (nbuf * e * _BWD_ROWS * (4 * hidden + 16 // e) + 8 * layers * _BWD_ROWS * hidden
+            + (0 if step_ctx else 4 * _BWD_ROWS * ctx_dim) + 4 * _BWD_ROWS * _BWD_MAX_D * (1 + warps)
+            + 1024 * stages * warps)
+
+
+def bwd_block(hidden: int, layers: int, d: int, ctx_dim: int, compute_dtype=torch.float32,
+              step_ctx: bool = False) -> SsBwdGeom:
+    """The block of the backward recurrence: 32 rows in hidden / 8 warps,
+    in the first layout of ``_BWD_LAYOUTS`` that fits beside every layer's
+    carries: two A buffers and rings of 4 k-pairs, then one A buffer, then
+    rings of 2.
+    Raises for shapes the kernel does not take: hidden not a multiple of 32
+    up to 128 (a warp a unit block, at most 16), more than 8 layers, d
+    outside 1..8, a context not of whole n8 tiles up to
+    hidden (one dctx n-tile a warp), or a block past shared memory."""
+    if hidden % 32 or not 32 <= hidden <= 128:
+        raise ValueError(f"the backward recurrence takes hidden a multiple of 32 up to 128 (a warp each 8 units, "
+                         f"at most 16), got hidden={hidden}")
+    if not 1 <= layers <= 8:
+        raise ValueError(f"the backward recurrence takes 1..8 layers, got {layers}")
+    if not 1 <= d <= _BWD_MAX_D:
+        raise ValueError(f"the backward recurrence takes 1 <= d <= {_BWD_MAX_D} coordinates a token, got d={d}")
+    if ctx_dim % 8 or not 0 <= ctx_dim <= hidden:
+        raise ValueError(f"the backward recurrence takes ctx_dim a multiple of 8 up to hidden (one dctx n-tile a "
+                         f"warp), got ctx_dim={ctx_dim}, hidden={hidden}")
+    f32 = compute_dtype != torch.bfloat16
+    for nbuf, stages in _BWD_LAYOUTS:
+        smem = _bwd_smem(hidden, layers, ctx_dim, step_ctx, nbuf, stages, f32)
+        if smem <= _SMEM_LIMIT:
+            return SsBwdGeom(_BWD_ROWS, hidden // 8, nbuf, stages, smem)
+    raise ValueError(
+        f"layers={layers}, hidden={hidden}, ctx_dim={ctx_dim}: the backward recurrence's block of {_BWD_ROWS} rows "
+        f"keeps every layer's carried dh and dc ({8 * layers * _BWD_ROWS * hidden} bytes) beside an A buffer of "
+        f"dgates in {'f32' if f32 else 'bf16'} and rings of W, {smem} bytes of shared memory, more than {_SMEM_LIMIT}"
+    )
+
+
+@functools.cache
+def _bwd_pack_index(n_rows: int, hidden: int, f32: bool, device: torch.device) -> torch.Tensor:
+    """Where each element of one layer's packed Wᵀ comes from: flat indices
+    into its n-ordered rows Wn (n_rows x 4H; B[k][n] = Wn[n][k], k the gate
+    column), in the order ``csrc/lstm_common.cuh`` ss_bwd_kernel reads it:
+    n-tile after n-tile, per pair of k-steps and lane (g, t) = (lane // 4,
+    lane % 4) 16 bytes, the B fragments {b0, b1} of both k-steps at column
+    n = 8·tile + g. f32 (mma m16n8k8, TF32): b0 = B[t], b1 = B[t + 4] of the
+    k8 step. bf16 (m16n8k16): b0 = B[2t, 2t + 1], b1 = B[2t + 8, 2t + 9]
+    of the k16 step."""
+    ks, ev = (8, 4) if f32 else (16, 8)
+    kp = torch.arange(4 * hidden // (2 * ks)).view(1, -1, 1, 1)
+    tile = torch.arange(n_rows // 8).view(-1, 1, 1, 1)
+    lane = torch.arange(32).view(1, 1, -1, 1)
+    e = torch.arange(ev).view(1, 1, 1, -1)
+    if f32:
+        k = 8 * (2 * kp + (e >> 1)) + lane % 4 + 4 * (e & 1)
+    else:
+        k = 16 * (2 * kp + (e >> 2)) + 2 * (lane % 4) + (e & 1) + 8 * ((e >> 1) & 1)
+    n = 8 * tile + lane // 4
+    return (n * 4 * hidden + k).reshape(-1).to(device)
+
+
+def pack_bwd_weights(params: Sequence[LSTMParams], d: int, ctx_dim: int,
+                     compute_dtype=torch.float32) -> List[torch.Tensor]:
+    """Every layer's Wᵀ for the backward's ``dgates · Wᵀ``, packed once a
+    call in mma's B fragment order (:func:`_bwd_pack_index`) in the tier's
+    type (f32, or bf16 rounded to nearest even) → one flat tensor a layer.
+    The rows of W go in the order of the product's columns (its n): layer 0
+    [W[D+C:] (dh) | W[D:D+C] (dctx)] (dx, from W[:D], runs apart), layer
+    l > 0 [W[H:] (dh) | W[:H] (the layer below's h)]."""
+    hidden = params[0].w.shape[1] // 4
+    f32 = compute_dtype != torch.bfloat16
     out = []
     for l, p in enumerate(params):
-        d_in = d_in0 if l == 0 else p.w.shape[1] // 4
-        w = p.w[d_in:] if l == 0 else torch.cat([p.w[d_in:], p.w[:d_in]])
-        out.append(w.t().contiguous())
-    d = d_in0 - ctx_dim
-    wtc = params[0].w[d:d_in0].t().contiguous() if ctx_dim else None
-    return out, wtc
+        w = torch.cat([p.w[d + ctx_dim:], p.w[d:d + ctx_dim]] if l == 0 else [p.w[hidden:], p.w[:hidden]])
+        w = w.float() if f32 else w.to(torch.bfloat16)
+        out.append(w.reshape(-1)[_bwd_pack_index(w.shape[0], hidden, f32, w.device)])
+    return out
 
 
 def ss_bwd(
@@ -441,18 +536,15 @@ def bwd_launch(fn, name, params, proj_w, c0, coins, res: Residuals, dys, ctx_dim
                compute_dtype):
     """Launch a backward recurrence kernel (``fn``: ``ss_bwd``, or with
     ``step_ctx`` ``ops.lstm_align``'s per-step-context instance, which
-    writes dctx (B, T, C)) on checked CUDA tensors."""
+    writes dctx (B, T, C)) on checked CUDA tensors: the block from
+    :func:`bwd_block`, W packed by :func:`pack_bwd_weights` once a call."""
     batch, t_len, d = dys.shape
     hidden, layers = proj_w.shape[0], len(params)
     dev = dys.device
     rdt = res.hs[0].dtype
-    _ctx_ok(ctx_dim)
-    rows = kernel_rows(hidden, layers, d, ctx_dim)
-    wt, wtc = _transposed(params, d + ctx_dim, ctx_dim)
-    wt = in_compute(wt, compute_dtype)
-    w0, proj_w = in_compute([params[0].w, proj_w], compute_dtype)
-    if wtc is not None:
-        (wtc,) = in_compute([wtc], compute_dtype)
+    geo = bwd_block(hidden, layers, d, ctx_dim, compute_dtype, step_ctx)
+    wt = pack_bwd_weights(params, d, ctx_dim, compute_dtype)
+    w0x, proj_w = in_compute([params[0].w[:d].contiguous(), proj_w], compute_dtype)
     dgates = [torch.empty((batch, t_len, 4 * hidden), device=dev) for _ in params]
     dy = torch.empty((batch, t_len, d), device=dev)
     dteacher = torch.empty((t_len, batch, d), device=dev)
@@ -462,17 +554,14 @@ def bwd_launch(fn, name, params, proj_w, c0, coins, res: Residuals, dys, ctx_dim
     dctx = None
     if ctx_dim:
         dctx = torch.empty((batch, t_len, ctx_dim) if step_ctx else (batch, ctx_dim), device=dev)
-    extra = [] if wtc is None else [wtc, dctx]
-    _check_card([proj_w, c0, coins, dys, w0, *wt, *res.cs, *res.gs, *dgates,
-                 dy, dteacher, dy0, dh0, dc0, *extra])
+    _check_card([proj_w, c0, coins, dys, *wt, w0x, *res.cs, *res.gs, *dgates, dy, dteacher, dy0, dh0, dc0,
+                 *([] if dctx is None else [dctx])])
     with torch.cuda.device(dev):
         err = fn(
-            dys.data_ptr(), c0.data_ptr(), coins.data_ptr(), w0.data_ptr(),
-            _ptrs(wt), None if wtc is None else wtc.data_ptr(), proj_w.data_ptr(),
+            dys.data_ptr(), c0.data_ptr(), coins.data_ptr(), _ptrs(wt), w0x.data_ptr(), proj_w.data_ptr(),
             _ptrs(res.cs), _ptrs(res.gs), _ptrs(dgates), dy.data_ptr(), dteacher.data_ptr(),
-            dy0.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            None if dctx is None else dctx.data_ptr(),
-            batch, t_len, d, ctx_dim, hidden, layers, rows, int(rdt == torch.bfloat16),
+            dy0.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), None if dctx is None else dctx.data_ptr(),
+            batch, t_len, d, ctx_dim, hidden, layers, geo.nbuf, geo.stages, int(rdt == torch.bfloat16),
             int(compute_dtype == torch.bfloat16), _stream(),
         )
     _raise_on(err, name)
@@ -598,7 +687,9 @@ def _library() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
     lib.ss_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 9 + [vp]
-    lib.ss_bwd.argtypes = [vp, vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 9 + [vp]
+    lib.ss_bwd.argtypes = [vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 10 + [vp]
+    lib.ss_bwd_smem.argtypes = [i32] * 8
+    lib.ss_bwd_smem.restype = ctypes.c_longlong
     lib.ss_dw.argtypes = [vp] * 6 + [arr] * 4 + [vp, vp, arr, arr] + [i32] * 10 + [vp]
     lib.ss_dproj.argtypes = [vp] * 5 + [i32] * 7 + [vp]
     for f in (lib.ss_fwd, lib.ss_bwd, lib.ss_dw, lib.ss_dproj):

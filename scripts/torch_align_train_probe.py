@@ -1,0 +1,243 @@
+"""Probe of the PyTorch port's 10 s training recurrences on the tensor cores
+on one NVIDIA card: the scheduled-sampling decoder backward
+(``ops.lstm_ss.ss_bwd``, the static context of row 6, and
+``ops.lstm_align.dec_bwd``, the per-step context of row 7;
+``csrc/lstm_common.cuh`` ss_bwd_kernel) and the lockstep peer forward
+(``ops.lstm_align.peer_fwd``; ``csrc/lstm_align.cu`` on ``lstm_mma.cuh``'s
+encoder).
+
+Run from the root of a checkout: ``python3 scripts/torch_align_train_probe.py``.
+``--checkout DIR`` imports the port (and its ``chip_smoke.py``) from another
+checkout instead, such as an unpacked older commit; ``--self-only`` then
+skips what that checkout may lack (the SASS report and the probe build);
+``--skip-checks`` skips 2.; ``--steps`` only times the train steps (5.). One
+process a checkout, so that a call can run parent, change, change, parent.
+Prints, on the card it finds (it fails without one):
+
+1. the card's name and power limit; each build's registers and spills;
+   unless ``--self-only``, every instance of both kernels with its
+   registers, spills, shared memory and ``HMMA`` count
+   (``chip_smoke.report_train_mma``) and the serve kernels' of
+   ``csrc/fused_serve.cu``, whose peer context shares the peer forward's
+   body (``chip_smoke.report_lstm_mma``);
+2. both kernels against their plain versions at the card tests' shapes, in
+   both compute types and residual types: the largest gap of each output
+   relative to max|plain| (the backward's f32 gate 1e-4; the peer forward's
+   absolute, gate 1e-5), whether a repeat is bit-equal, and whether a
+   permuted batch gives the permuted answer bit for bit;
+3. times, CUDA events, in turns (``chip_smoke.in_turns``) within the
+   process, on bf16 residuals: the decoder backward at
+   ``stacked-ss-crossuser-10s``'s shape (B = 4096, T = 100, L = 2, C = 128,
+   per step) and at row 6's (B = 4096, T = 30, L = 2, static C = 128 and
+   64), the peer forward at B = 4096, K = 7, T = 100, C = 128, and the
+   serve tier's peer context at the same shape (the body they share), each
+   in f32 and bf16 compute;
+4. unless ``--self-only``: the time split of the probe build
+   (``-DSSB_PROBE``: thread 0 of every block adds its ``clock64`` deltas a
+   part, ``SsbPart`` order) of the decoder backward at the 10 s shape in
+   both compute types;
+5. with ``--steps`` only: the train step (CUDA events, the batch's copy to
+   the card included) of ``stacked-ss-crossuser-10s`` and
+   ``stacked-ss-crossuser`` at B = 4096 in f32 and bf16 compute, and a
+   profile of the 10 s steps' device time by kernel.
+"""
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PARTS = ("loads and above", "cell", "barriers", "products", "epilogue")
+F32, BF = torch.float32, torch.bfloat16
+
+
+def rel_gaps(outs, refs):
+    return [round((x - y).abs().max().item() / max(y.abs().max().item(), 1e-30), 9)
+            for x, y in zip(outs, refs) if x is not None]
+
+
+def abs_gaps(outs, refs):
+    return [round((x.float() - y.float()).abs().max().item(), 9) for x, y in zip(outs, refs)]
+
+
+def tag(rd, cd):
+    return f"{str(rd)[6:]} residuals, {str(cd)[6:]} compute"
+
+
+def check_bwd(chip_smoke, dev, lstm_align, lstm_ss):
+    """2. for the decoder backward: both instances against the plain
+    version, repeats, a permuted batch."""
+    out = {}
+    cases = [(4099, 2, 128, False, 30, "bernoulli"), (257, 3, 128, False, 30, "bernoulli"),
+             (1, 1, 0, False, 30, "1"), (513, 2, 64, False, 30, "0"), (67, 2, 128, True, 100, "bernoulli"),
+             (1000, 2, 32, True, 30, "1"), (301, 1, 96, True, 30, "0")]
+    for batch, layers, c, step, t, coins in cases:
+        ps, a = chip_smoke.ss_case(dev, batch, layers, c, coins, seed=batch + c, t=t)
+        ctx = None if not c else (torch.randn((batch, t, c), device=dev) * 0.5 if step else a["ctx"])
+        fwd = (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], ctx)
+        for rd in (F32, BF):
+            res = lstm_ss._forward_reference(*fwd, rd)[1]
+            args = (ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], c)
+            kern = lstm_align.dec_bwd if step else lstm_ss.ss_bwd
+            for cd in (F32, BF):
+                got = kern(*args, cd)
+                again = kern(*args, cd)
+                ref = lstm_ss._bwd_recurrence_reference(*args, step_ctx=step, compute_dtype=cd)
+                flat = lambda o: [*o[0], *o[1:]]  # noqa: E731
+                r = {"rel_gap": rel_gaps(flat(got), flat(ref)),
+                     "repeat_bit_equal": all(torch.equal(x, y) for x, y in zip(flat(got), flat(again))
+                                             if x is not None)}
+                out[f"{'dec_bwd' if step else 'ss_bwd'} B={batch} L={layers} C={c} T={t} coins {coins} "
+                    f"{tag(rd, cd)}"] = r
+    # a permuted batch: the permuted answer, bit for bit
+    batch, t = 300, 30
+    ps, a = chip_smoke.ss_case(dev, batch, 2, 128, "bernoulli", seed=8, t=t)
+    perm = torch.randperm(batch, generator=torch.Generator().manual_seed(0)).to(dev)
+    ctx = torch.randn((batch, t, 128), device=dev)
+    fwd = (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], ctx)
+    res = lstm_ss._forward_reference(*fwd, BF)[1]
+    res_p = type(res)(*[[x[perm] for x in part] for part in res])
+    for cd in (F32, BF):
+        full = lstm_align.dec_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128, cd)
+        cut = lstm_align.dec_bwd(ps, a["proj_w"], a["c0"][:, perm], a["coins"][:, perm], res_p, a["dys"][perm], 128,
+                                 cd)
+        same = all(torch.equal(x[perm], y) for x, y in zip(full[0], cut[0]))
+        same &= torch.equal(full[1][perm], cut[1]) and torch.equal(full[2][:, perm], cut[2])
+        same &= torch.equal(full[4][:, perm], cut[4]) and torch.equal(full[6][perm], cut[6])
+        out[f"dec_bwd permuted batch B={batch} {tag(BF, cd)}"] = {"bit_equal": same}
+    return out
+
+
+def check_fwd(chip_smoke, dev, lstm_align):
+    """2. for the peer forward."""
+    out = {}
+    for batch, k, t, c in ((67, 7, 100, 128), (4099, 7, 30, 128), (13, 1, 20, 128), (257, 8, 30, 64),
+                           (301, 4, 30, 32), (100, 3, 30, 96)):
+        ps, a = chip_smoke.aligned_case(dev, batch, 1, k, "1", seed=batch + k, t=t)
+        peer = chip_smoke.stack(np.random.default_rng(c), dev, 3, 1, c)[0]
+        for rd in (F32, BF):
+            for cd in (F32, BF):
+                got = lstm_align.peer_fwd(peer, a["pxs"], a["pwt"], rd, cd)
+                again = lstm_align.peer_fwd(peer, a["pxs"], a["pwt"], rd, cd)
+                ref = lstm_align._peer_fwd_reference(peer, a["pxs"], a["pwt"], rd, cd)
+                out[f"peer_fwd B={batch} K={k} T={t} C={c} {tag(rd, cd)}"] = {
+                    "abs_gap": abs_gaps(got, ref), "repeat_bit_equal": all(map(torch.equal, got, again))}
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--checkout", default=str(ROOT), help="the checkout whose port to import")
+    ap.add_argument("--self-only", action="store_true", help="skip the SASS report and the probe build")
+    ap.add_argument("--skip-checks", action="store_true", help="skip the checks against the plain versions")
+    ap.add_argument("--steps", action="store_true", help="only time the train steps")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("torch sees no CUDA device; this probe runs only on the card")
+    sys.path.insert(0, args.checkout)
+    import chip_smoke
+    from longterm360fov_tpu_torch.ops import _build, fused_lstm, lstm_align, lstm_ss
+
+    fused_lstm.exact_f32_matmul()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"{smi}; port from {args.checkout}", flush=True)
+    dev = torch.device("cuda:0")
+    if args.steps:
+        return time_steps(chip_smoke, dev, smi)
+    with ThreadPoolExecutor(max_workers=4) as pool:  # one nvcc each, started together
+        jobs = {name: pool.submit(_build.build, name) for name in ("lstm_ss", "lstm_align", "fused_serve")}
+        if not args.self_only:
+            jobs["probe"] = pool.submit(_build.build, "lstm_align", ("SSB_PROBE",))
+        builds = {k: j.result() for k, j in jobs.items()}
+    for k, b in builds.items():
+        print(f"build {k}: {b.seconds:.1f} s; {chip_smoke.ptxas_report(b.log)}", flush=True)
+    if not args.self_only:
+        chip_smoke.BUILD_LOGS.update({k: b.log for k, b in builds.items()})
+        chip_smoke.report_train_mma(builds)
+        chip_smoke.report_lstm_mma(builds)
+    if not args.skip_checks:
+        print(f"decoder backward against plain (max gap / max|plain| of dgates.., dy, dteacher, dy0, dh0, dc0, dctx; "
+              f"f32 gate 1e-4): {json.dumps(check_bwd(chip_smoke, dev, lstm_align, lstm_ss))}", flush=True)
+        print(f"peer forward against plain (max abs gap of php, pcp, ctx; f32 gate 1e-5): "
+              f"{json.dumps(check_fwd(chip_smoke, dev, lstm_align))}", flush=True)
+
+    # 3. times
+    B = chip_smoke.TRAIN_B
+    calls, iters = {}, {}
+    ps, a = chip_smoke.aligned_case(dev, B, 2, 7, "bernoulli", seed=11)
+    php, pcp, ctx = lstm_align.peer_fwd(a["peer"], a["pxs"], a["pwt"], BF)
+    fwd = (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], ctx)
+    res10 = lstm_align.dec_fwd(*fwd, BF)[1]
+    bargs10 = (ps, a["proj_w"], a["c0"], a["coins"], res10, a["dys"], 128)
+    peer_xs = a["pxs"].reshape(B, 7, 100, 3)
+    for cd in (F32, BF):
+        n = str(cd)[6:]
+        calls[f"dec_bwd 10s {n}"] = lambda cd=cd: lstm_align.dec_bwd(*bargs10, cd)
+        calls[f"peer_fwd 10s {n}"] = lambda cd=cd: lstm_align.peer_fwd(a["peer"], a["pxs"], a["pwt"], BF, cd)
+        calls[f"peer_context serve {n}"] = lambda cd=cd: fused_lstm.peer_context(a["peer"], peer_xs, a["pwt"],
+                                                                                compute_dtype=cd)
+    for c in (128, 64):
+        ps6, a6 = chip_smoke.ss_case(dev, B, 2, c, "bernoulli", seed=c)
+        res6 = lstm_ss.ss_fwd(*chip_smoke.ss_fwd_args(ps6, a6), BF)[1]
+        b6 = (ps6, a6["proj_w"], a6["c0"], a6["coins"], res6, a6["dys"], c)
+        for cd in (F32, BF):
+            calls[f"ss_bwd T=30 C={c} {str(cd)[6:]}"] = lambda b6=b6, cd=cd: lstm_ss.ss_bwd(*b6, cd)
+    iters = {k: (5 if "10s" in k or "serve" in k else 10) for k in calls}
+    ms = chip_smoke.in_turns(calls, iters)
+    print(f"alone at B={B} on bf16 residuals (ms a call, CUDA events, in turns; {smi}): {json.dumps(ms)}", flush=True)
+    if args.self_only:
+        return
+
+    # 4. the probe build's split
+    lib = lstm_align.bind(ctypes.CDLL(str(builds["probe"].path)))
+    buf = (ctypes.c_ulonglong * len(PARTS))()
+    for cd in (F32, BF):
+        run = lambda: lstm_ss.bwd_launch(lib.align_dec_bwd, "dec_bwd", *bargs10[:6], 128,  # noqa: E731
+                                         step_ctx=True, compute_dtype=cd)
+        run()
+        torch.cuda.synchronize()
+        lib.ss_bwd_probe_read(buf)
+        t_ms = chip_smoke.cuda_ms(run, 2)
+        lib.ss_bwd_probe_read(buf)
+        total = sum(buf)
+        split = {p: round(v / total, 4) for p, v in zip(PARTS, buf) if v}
+        print(f"dec_bwd {str(cd)[6:]} compute probe build at the 10 s shape ({t_ms:.3f} ms a call; thread 0's "
+              f"clock64 a part, summed over the blocks): {json.dumps(split)}", flush=True)
+
+
+def time_steps(chip_smoke, dev, smi):
+    """5.: the train steps of the two crossuser presets, and the 10 s steps'
+    device time by kernel."""
+    from longterm360fov_tpu_torch import train
+    from longterm360fov_tpu_torch.config import get_preset
+    from longterm360fov_tpu_torch.models import get_family
+
+    out = {}
+    for preset, iters in (("stacked-ss-crossuser-10s", 5), ("stacked-ss-crossuser", 10)):
+        cfg = get_preset(preset, batch_size=chip_smoke.TRAIN_B)
+        fam = get_family(cfg.model_family)
+        batch = next(train.batch_iterator(chip_smoke.synthetic_windows(cfg)[0], cfg.batch_size, seed=2))
+        for tc in ("float32", "bfloat16"):
+            c = cfg.replace(train_compute=tc)
+            opt = train.make_optimizer(c)
+            st = [train.init_state(c, fam.init, opt, device=dev)]
+            step = train.make_train_step(c, fam.apply, opt, gc_metric=False, **chip_smoke.family_fns(fam))
+
+            def one():
+                st[0] = step(st[0], batch)[0]
+            out[f"{preset} {tc}"] = chip_smoke.cuda_ms(one, iters)
+            if preset.endswith("10s"):
+                chip_smoke.profile_device(f"{preset} {tc} step", one, 3, smi)
+    print(f"train steps at B={chip_smoke.TRAIN_B} (ms a step, CUDA events; {smi}): {json.dumps(out)}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

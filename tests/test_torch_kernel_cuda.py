@@ -973,6 +973,120 @@ def test_peer_bwd_launch_shape_is_the_kernels():
     assert lib.peer_bwd_smem(160, 4, 1, 0) == -1 and lib.peer_bwd_stream_bytes(160, 0) == -1
 
 
+# ------------------------------------- the 10 s training recurrences on the tensor cores
+# The decoder backward (csrc/lstm_common.cuh ss_bwd_kernel: row 6's static
+# context through ss_bwd, row 7's per-step context through dec_bwd; three-pass
+# TF32 or bf16 mma) and the lockstep peer forward (peer_fwd on lstm_mma.cuh's
+# encoder) at the shapes their blocks take, held to the gates above ("rec",
+# "fwd"): the 10 s shape cut in B, K = 1..8, C = 32..128 and 0, coins at 0, 1
+# and Bernoulli, both compute and residual types; repeats bit-equal; a
+# permuted batch gives the permuted answer bit for bit; the shapes they
+# refuse raise ValueError naming them.
+
+
+def _bwd_case(batch, layers, c, coins, seed, t, step, rd):
+    """The backward recurrence's arguments: _ss_case's decoder, its context
+    (per step when ``step``), and the plain forward's residuals in ``rd``."""
+    ps, a = _ss_case(batch, layers, c, coins, seed, t)
+    rng = np.random.default_rng(seed + 1)
+    ctx = _cuda(rng, (batch, t, c), 0.5) if step else a["ctx"]
+    res = lstm_ss._forward_reference(ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"],
+                                     a["coins"], ctx, rd)[1]
+    return ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], c
+
+
+@pytest.mark.parametrize("cd", COMPUTE)
+@pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("step,layers,c,coins,batch,t", [
+    (True, 2, 128, "bernoulli", 67, 100),  # the 10 s shape cut in B
+    (True, 2, 32, "1", 301, 30), (True, 1, 96, "0", 33, 30), (True, 3, 64, "bernoulli", 100, 30),
+    (False, 2, 128, "0", 257, 30), (False, 2, 64, "1", 257, 30),  # row 6: stacked-ss-crossuser, video-fusion
+    (False, 1, 0, "bernoulli", 31, 30),  # no context: no dctx n-tile
+])
+def test_ss_bwd_tensor_core_shapes(step, layers, c, coins, batch, t, rd, cd):
+    args = _bwd_case(batch, layers, c, coins, seed=layers + c, t=t, step=step, rd=rd)
+    kernel = lstm_align.dec_bwd if step else lstm_ss.ss_bwd
+    before = _counts([kernel])
+    out = kernel(*args, cd)
+    again = kernel(*args, cd)
+    torch.cuda.synchronize()
+    assert _counts([kernel]) == [(n + 2 * (cd != BF), m + 2 * (cd == BF)) for n, m in before]
+    refs = _plains(cd, lambda x: lstm_ss._bwd_recurrence_reference(*args, step_ctx=step, compute_dtype=x))
+    assert (out[6] is None) == (c == 0)
+    _check(_flat(out), [_flat(r) for r in refs], "rec", cd)
+    assert all(torch.equal(x, y) for x, y in zip(_flat(out), _flat(again)))
+
+
+@pytest.mark.parametrize("cd", COMPUTE)
+@pytest.mark.parametrize("step", [False, True])
+def test_ss_bwd_permuted_batch_gives_the_permuted_answer(step, cd):
+    """Rows are independent and each row's sums run in a fixed order: a
+    permuted batch (across the 32-row blocks) gives the permuted gradients
+    bit for bit."""
+    batch, t = 300, 30
+    args = _bwd_case(batch, 2, 128, "bernoulli", seed=8, t=t, step=step, rd=BF)
+    ps, proj_w, c0, coins, res, dys, c = args
+    perm = torch.randperm(batch, generator=torch.Generator().manual_seed(0)).cuda()
+    res_p = lstm_train.Residuals(*[[x[perm] for x in part] for part in res])
+    kernel = lstm_align.dec_bwd if step else lstm_ss.ss_bwd
+    full = kernel(*args, cd)
+    cut = kernel(ps, proj_w, c0[:, perm], coins[:, perm], res_p, dys[perm], c, cd)
+    assert all(torch.equal(x[perm], y) for x, y in zip(full[0], cut[0]))
+    assert torch.equal(full[1][perm], cut[1]) and torch.equal(full[2][:, perm], cut[2])
+    assert torch.equal(full[3][perm], cut[3]) and torch.equal(full[6][perm], cut[6])
+    assert torch.equal(full[4][:, perm], cut[4]) and torch.equal(full[5][:, perm], cut[5])
+
+
+@pytest.mark.parametrize("cd", COMPUTE)
+@pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,c,batch,t", [(7, 128, 67, 100), (1, 128, 13, 20), (2, 32, 301, 30), (3, 96, 100, 30),
+                                         (4, 64, 257, 30), (5, 128, 40, 30), (6, 64, 19, 30), (8, 128, 257, 30)])
+def test_peer_fwd_tensor_core_shapes(k, c, batch, t, rd, cd):
+    """The peer forward at K = 1..8 and C = 32..128: h and c (residual
+    type) and ctx against the plain version ("fwd": 1e-5, or one bf16 step
+    on a bf16 value), a row with every peer masked, repeats bit-equal."""
+    rng = np.random.default_rng(k + c)
+    peer = _stack(rng, 3, 1, hidden=c)[0]
+    _, pxs, w = _peer_case(batch, k, t, seed=k + c)
+    pxs = pxs.reshape(batch * k, t, 3).contiguous()
+    before = _counts([lstm_align.peer_fwd])
+    out = lstm_align.peer_fwd(peer, pxs, w, rd, cd)
+    again = lstm_align.peer_fwd(peer, pxs, w, rd, cd)
+    torch.cuda.synchronize()
+    assert _counts([lstm_align.peer_fwd]) == [(n + 2 * (cd != BF), m + 2 * (cd == BF)) for n, m in before]
+    assert out[0].dtype == out[1].dtype == rd and not out[2][0].any()
+    _check(list(out), _plains(cd, lambda x: list(lstm_align._peer_fwd_reference(peer, pxs, w, rd, x))), "fwd", cd)
+    assert all(map(torch.equal, out, again))
+
+
+def test_training_recurrences_refuse_what_their_blocks_do_not_take():
+    """Each shape the new bodies do not take raises ValueError naming it,
+    on the card too (no fall-back): the backward at hidden 160, a context
+    not of whole n8 tiles, d = 9, an f32 stack too deep for a block; the
+    peer forward at ctx_dim 160, d = 9, K = 9 in f32."""
+    rng = np.random.default_rng(0)
+    ps = _stack(rng, 3 + 128, 4)
+    a = _ss_case(4, 4, 128, "1", seed=0, t=3)[1]
+    res = lstm_ss._forward_reference(ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"],
+                                     a["coins"], a["ctx"], torch.float32)[1]
+    with pytest.raises(ValueError, match="layers=4, hidden=128, ctx_dim=128"):
+        lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
+    assert lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128, BF)[0][0].is_cuda
+    for hidden, c, d, match in ((160, 0, 3, "got hidden=160"), (128, 12, 3, "got ctx_dim=12"),
+                                (128, 0, 9, "got d=9")):
+        with pytest.raises(ValueError, match=match):
+            lstm_ss.bwd_block(hidden, 2, d, c)
+    peer = _stack(rng, 3, 1, hidden=160)[0]
+    with pytest.raises(ValueError, match="ctx_dim in .*got 160"):
+        lstm_align.peer_fwd(peer, _cuda(rng, (14, 5, 3)), torch.full((2, 7), 1 / 7, device="cuda"))
+    peer = _stack(rng, 9, 1)[0]
+    with pytest.raises(ValueError, match="1 <= d <= 8 window features"):
+        lstm_align.peer_fwd(peer, _cuda(rng, (14, 5, 9)), torch.full((2, 7), 1 / 7, device="cuda"))
+    peer = _stack(rng, 3, 1)[0]
+    with pytest.raises(ValueError, match="K = 9 peers"):
+        lstm_align.peer_fwd(peer, _cuda(rng, (18, 5, 3)), torch.full((2, 9), 1 / 9, device="cuda"))
+
+
 # ------------------------------------------------------------- conv_resize kernel
 # Against its plain version (the dense einsum, then cuDNN's conv in exact
 # f32): 1e-5 of max|plain|. The kernel sums the resize's two non-zero taps

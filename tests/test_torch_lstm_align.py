@@ -292,13 +292,13 @@ def test_aligned_wrappers_reject_what_the_kernels_do_not_take():
         lstm_align.aligned_ss_decode(*args[:8], t["pxs"][:, :, :6], args[9])
     with pytest.raises(TypeError, match="residual_dtype"):
         lstm_align.peer_fwd(tpeer, lstm_align.peer_rows_of(t["pxs"], 3), t["pwt"], torch.float16)
-    assert fused_lstm.peer_rows(128, 7, tile_rows=4) == 4 and fused_lstm.peer_rows(128, 7) == 8
-    assert fused_lstm.peer_rows(128, 3) == 16 and fused_lstm.peer_rows(32, 7) == 32
-    for tile_rows in (4, 8):
-        with pytest.raises(ValueError, match="K = 9 peers"):
-            fused_lstm.peer_rows(128, 9, tile_rows=tile_rows)
-    with pytest.raises(ValueError, match="ctx_dim % 32"):
-        fused_lstm.peer_rows(8, 3)
+    # the peer forward's blocks: the serve tier's peer context blocks, all K peers of whole viewers
+    assert lstm_align.peer_fwd_block(128, 7, 3).rows_v == 9 and lstm_align.peer_fwd_block(128, 3, 3).rows_v == 21
+    assert lstm_align.peer_fwd_block(32, 7, 3, torch.bfloat16) == fused_lstm.peer_tc_rows(32, 7, 3)
+    with pytest.raises(ValueError, match="K = 9 peers"):
+        lstm_align.peer_fwd_block(128, 9, 3)
+    with pytest.raises(ValueError, match="ctx_dim in"):
+        lstm_align.peer_fwd_block(8, 3, 3)
 
 
 @pytest.mark.parametrize("fits", [(4, 5, 6, 7, 8), (4, 5, 6, 7), (4, 5, 6), (4,)])

@@ -127,10 +127,10 @@ def test_tc_choosers_raise_for_shapes_they_do_not_take():
         fused_lstm.encode_tc_rows(128, 9, 3)
     with pytest.raises(ValueError, match=r"\(ceil\(d / 16\)·16 \+ \(layers \+ 1\)·hidden \+ 8\)·32 bytes"):
         fused_lstm.encode_tc_rows(1024, 1, 5209)
-    # every shape the f32 tier's rows take at this width, the bf16 tier takes too
+    # every shape the f32 tier's blocks take at this width, the bf16 tier takes too
     for k in range(1, 65):
         try:
-            fused_lstm.peer_rows(128, k)
+            fused_lstm.peer_tf32_rows(128, k, 3)
         except ValueError:
             continue
         fused_lstm.peer_tc_rows(128, k, 3)
