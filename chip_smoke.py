@@ -2318,8 +2318,9 @@ def report_lstm_mma(builds):
 
 def report_train_mma(builds):
     """The 10 s training recurrences on the tensor cores: every instance of
-    the decoder backward (ss_bwd_kernel<RT, STEP_CTX, P>: lstm_ss.cu's static
-    context, lstm_align.cu's per-step one) and of the lockstep peer forward
+    the decoder backward (ss_bwd_kernel<RT, STEP_CTX, P, STAGES>:
+    lstm_ss.cu's static context, lstm_align.cu's per-step one; the W ring 4
+    k-pairs deep, or 2 for deeper stacks) and of the lockstep peer forward
     (align_peer_fwd_kernel<RT, P, MT>, lstm_mma.cuh's encoder): registers,
     spills and shared memory (ptxas; the dynamic shared memory of the
     training shapes' blocks, from the choosers, which must equal the
@@ -2341,9 +2342,12 @@ def report_train_mma(builds):
     for (source, sym), n in sorted(hmma.items()):
         rt = "bf16" if "I13__nv_bfloat16" in sym.split("kernel")[1][:20] else "f32"
         tier = "bf16" if "Bf16Mma" in sym else "f32 (three-pass TF32)"
-        name = "align_peer_fwd_kernel" if "align_peer_fwd" in sym else \
-            f"ss_bwd_kernel<{'step' if 'Lb1E' in sym else 'static'} ctx>"
-        print(f"{source}: {name}<RT {rt}, {tier}{', MT 1' if 'Li1E' in sym else ''}>: {n} HMMA instructions in "
+        if "align_peer_fwd" in sym:
+            name, extra = "align_peer_fwd_kernel", ", MT 1" if "Li1E" in sym else ""
+        else:
+            name = f"ss_bwd_kernel<{'step' if 'Lb1E' in sym else 'static'} ctx>"
+            extra = f", ring {4 if 'Li4EE' in sym else 2}"
+        print(f"{source}: {name}<RT {rt}, {tier}{extra}>: {n} HMMA instructions in "
               f"its SASS; {json.dumps(ptxas_resources(source, (sym,)))}", flush=True)
     ss_lib, al_lib = lstm_ss._library(), lstm_align._library()
     blocks = {}
@@ -2351,18 +2355,18 @@ def report_train_mma(builds):
         for name, (c, step) in (("stacked-ss-crossuser", (128, False)), ("stacked-ss-crossuser-10s", (128, True)),
                                 ("video-fusion", (64, False))):
             g = lstm_ss.bwd_block(128, 2, 3, c, cd, step)
-            if ss_lib.ss_bwd_smem(128, 2, 3, c, int(step), g.nbuf, g.stages, int(cd == BF)) != g.smem:
+            if ss_lib.ss_bwd_smem(128, 2, 3, c, int(step), int(cd == BF)) != g.smem:
                 raise AssertionError(f"the decoder backward's block at {name}: the library and bwd_block disagree")
-            blocks[f"ss_bwd {name} {str(cd)[6:]}"] = [g.rows, g.warps, g.nbuf, g.stages, g.smem]
+            blocks[f"ss_bwd {name} {str(cd)[6:]}"] = [g.rows, g.warps, g.stages, g.smem]
         g = lstm_align.peer_fwd_block(128, 7, 3, cd)
         if al_lib.align_peer_fwd_smem(3, 128, 7, g.rows_v, g.rp, g.mt, g.warps, int(g.w_res), int(g.c_smem),
                                       int(cd == BF)) != g.smem:
             raise AssertionError("the peer forward's block: the library and peer_fwd_block disagree")
         blocks[f"peer_fwd K=7 {str(cd)[6:]}"] = [g.rp, g.warps, g.w_res, g.smem]
-    print(f"the training recurrences' blocks at the training shapes (ss_bwd: rows, warps, A buffers, ring stages, "
+    print(f"the training recurrences' blocks at the training shapes (ss_bwd: rows, warps, ring stages, "
           f"bytes of dynamic shared memory; peer_fwd: rows, warps, W resident, bytes): {json.dumps(blocks)}",
           flush=True)
-    if len(hmma) != 14 or not all(hmma.values()):
+    if len(hmma) != 22 or not all(hmma.values()):
         raise AssertionError(f"a training recurrence instance has no HMMA instruction, its products off the tensor "
                              f"cores: {hmma}")
 

@@ -64,7 +64,8 @@
 // from L2 with 16-byte loads, and the split above, which gives the peer
 // kernels K times the rows. The peer forward, which in that design took
 // 19.2-19.3 ms, runs the serve tier's peer context body (lstm_mma.cuh),
-// whose h and c reach its residual stores by shuffles within a lane quad;
+// which stores the residual h (from its f32 staging) and c (from the
+// lanes' slots) in 16-byte pieces along whole rows during the publish;
 // the decoder backward (19.4-19.8 ms) is lstm_common.cuh's tensor-core body
 // (its header says how). The peer backward, which in that
 // design took 54 ms, 35 % of the f32 train step, read all of Wp and
@@ -658,10 +659,10 @@ int align_dec_fwd(const void* h0, const void* c0, const void* y0,
 int align_dec_bwd(const void* dys, const void* c0, const void* coins, const void* const* wt, const void* w0x,
                   const void* proj_w, const void* const* cs, const void* const* gs, void* const* dg, void* dy,
                   void* dteacher, void* dy0, void* dh0, void* dc0, void* dctx, int batch, int t_len, int d,
-                  int ctx_dim, int hidden, int layers, int nbuf, int stages, int bf16, int cbf16, void* stream) {
+                  int ctx_dim, int hidden, int layers, int bf16, int cbf16, void* stream) {
   if (dctx == nullptr || ctx_dim < 1) return (int)cudaErrorInvalidValue;
   return ss_bwd_launch<true>(dys, c0, coins, wt, w0x, proj_w, cs, gs, dg, dy, dteacher, dy0, dh0, dc0, dctx, batch,
-                             t_len, d, ctx_dim, hidden, layers, nbuf, stages, bf16, cbf16, stream);
+                             t_len, d, ctx_dim, hidden, layers, bf16, cbf16, stream);
 }
 
 // The peer backward's dynamic shared memory at warps warps a block, or -1

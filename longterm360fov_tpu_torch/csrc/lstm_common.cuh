@@ -888,14 +888,17 @@ __global__ void __launch_bounds__(256)
 //     and the carried dh, dc stay in lane-private slots of shared memory.
 //   * The cell writes dgates f32 to device memory and, rounded where the
 //     tier rounds (bf16), into an A buffer in shared memory (32 rows x 4H,
-//     a 16-byte pad a row: ldmatrix's eight rows on distinct banks), double
-//     buffered where it fits, so one barrier a layer-step suffices.
+//     a 16-byte pad a row: ldmatrix's eight rows on distinct banks); a
+//     barrier after the cell and one after the product (a second buffer,
+//     which would save the latter, measured no faster).
 //   * Each warp's product reads all 4H of dgates as its k by ldmatrix and
 //     its n-tiles of Wᵀ as a stream of 16-byte pieces a lane (two k-steps a
 //     piece) from L2, packed once a call by ops/lstm_ss.py pack_bwd_weights
 //     in mma's B fragment order, each lane's pieces by cp.async through the
 //     warp's own ring in shared memory, 3 k-pairs ahead of the mma (1 ahead
-//     in registers left the products waiting on L2). At layer 0 the C / 8
+//     in registers left the products waiting on L2). The ring's depth is a
+//     template parameter: 4 k-pairs, or 2 (1 ahead) where a deeper stack's
+//     carries leave no room for 4 (ssb_stages). At layer 0 the C / 8
 //     dctx n-tiles go one a warp.
 //   * dx (D <= 8 columns): every warp's partial over its own 32 gate
 //     columns, an mma on the cell's registers (dx_partial), summed in warp
@@ -905,8 +908,10 @@ __global__ void __launch_bounds__(256)
 //     proj_wᵀ) runs on the FMA units, its coin and dys loaded at the step's
 //     start; dy_{t-1} goes into shared memory, one more barrier a step.
 //   * The residual gates and c of the next layer-step are loaded into
-//     registers before the current product on bf16 residuals (24 registers;
-//     f32 residuals are loaded at the cell).
+//     registers before the current product in the bf16 tier on bf16
+//     residuals (24 registers). f32 residuals, and the f32 tier, whose
+//     three-pass product spilled beside them (8 % of its time), load them
+//     at the cell.
 // The probe build (-DSSB_PROBE): thread 0 of every block adds the clock64
 // ticks of each part to g_ssb_probe; ss_bwd_probe_read copies them out.
 enum SsbPart {
@@ -936,15 +941,23 @@ struct SsBwdArgs {
   const void* proj_w;           // (H, D) in the compute type
 };
 
-// The block's dynamic shared memory: nbuf A buffers of 32 rows x (4H + a
+// The block's dynamic shared memory: an A buffer of 32 rows x (4H + a
 // 16-byte pad) in P::E, the carried dh and dc of every layer (f32), the
 // static context's dctx sums (f32; STEP_CTX: none), dy_t of the rows (32 x
 // SSB_MAX_D f32), the warps' partials of dx (h / 8 warps x 32 x SSB_MAX_D
 // f32) and each warp's ring of W's pieces (stages x 2 n-tiles x 512 bytes).
 template <typename P>
-__host__ __device__ inline long long ssb_smem_bytes(int h, int layers, int c, bool step_ctx, int nbuf, int stages) {
-  return (long long)nbuf * sizeof(typename P::E) * SSB_ROWS * (4 * h + P::PAD) + 8LL * layers * SSB_ROWS * h +
+__host__ __device__ inline long long ssb_smem_bytes(int h, int layers, int c, bool step_ctx, int stages) {
+  return (long long)sizeof(typename P::E) * SSB_ROWS * (4 * h + P::PAD) + 8LL * layers * SSB_ROWS * h +
          (step_ctx ? 0 : 4LL * SSB_ROWS * c) + 4LL * SSB_ROWS * SSB_MAX_D * (1 + h / 8) + 1024LL * stages * (h / 8);
+}
+
+// The W ring's depth in k-pairs: 4 (W read 3 k-pairs ahead), or 2 where
+// deeper stacks' carries leave no room for it (f32 at 3 layers, bf16 at 4,
+// at H = C = 128)
+template <typename P>
+__host__ __device__ inline int ssb_stages(int h, int layers, int c, bool step_ctx) {
+  return ssb_smem_bytes<P>(h, layers, c, step_ctx, 4) <= lstm_mma::SMEM_LIMIT ? 4 : 2;
 }
 
 // A warp's partial of dx = dgates · W[:D]ᵀ over its own 32 gate columns (gate
@@ -1123,19 +1136,20 @@ __device__ __forceinline__ void ssb_product(float (&acc)[NT][2][4], const typena
   }
 }
 
-template <typename RT, bool STEP_CTX, typename P>
+template <typename RT, bool STEP_CTX, typename P, int STAGES>
 __global__ void __launch_bounds__(512)
     ss_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ c0, const float* __restrict__ coins,
                   const SsBwdArgs a, float* __restrict__ dy, float* __restrict__ dteacher, float* __restrict__ dy0,
                   float* __restrict__ dh0, float* __restrict__ dc0, float* __restrict__ dctx, int B, int T, int D,
-                  int C, int H, int L, int nbuf, int stages) {
+                  int C, int H, int L) {
   using E = typename P::E;
   using CT = std::conditional_t<std::is_same<P, lstm_mma::Tf32Mma>::value, float, __nv_bfloat16>;
   using RP = ResPair<RT>;
   using Raw = typename RP::Raw;
-  // the next layer-step's residuals in registers during the product on
-  // bf16 residuals (24 registers; f32 ones would take 48)
-  constexpr bool AHEAD = !std::is_same<RT, float>::value;
+  // the next layer-step's residuals in registers during the bf16 tier's
+  // product on bf16 residuals (24 registers; f32 ones would take 48, and
+  // the three-pass product spills beside them)
+  constexpr bool AHEAD = !std::is_same<RT, float>::value && std::is_same<P, lstm_mma::Bf16Mma>::value;
   extern __shared__ float4 smem4[];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, nw = blockDim.x >> 5;
   const int g8 = lane >> 2, t4 = lane & 3, u = 8 * w + 2 * t4;  // the lane's units u, u + 1
@@ -1145,8 +1159,8 @@ __global__ void __launch_bounds__(512)
   SsbProbe pr(g_ssb_probe);
 
   char* sp = reinterpret_cast<char*>(smem4);
-  E* abuf = reinterpret_cast<E*>(sp);  // nbuf x (32, lda)
-  sp += (size_t)nbuf * sizeof(E) * SSB_ROWS * lda;
+  E* const ab = reinterpret_cast<E*>(sp);  // the A buffer of dgates (32, lda)
+  sp += sizeof(E) * SSB_ROWS * lda;
   float4* dhs = reinterpret_cast<float4*>(sp);  // slot ((l·nw + w)·2 + mt)·32 + lane: the carried dh
   float4* dcs = dhs + (size_t)L * nw * 64;      // the carried dc
   sp += (size_t)2 * 16 * L * nw * 64;
@@ -1156,7 +1170,7 @@ __global__ void __launch_bounds__(512)
   sp += (size_t)4 * SSB_ROWS * SSB_MAX_D;
   float* dxp = reinterpret_cast<float*>(sp);  // (nw, 32, SSB_MAX_D): the warps' partials of dx
   sp += (size_t)4 * nw * SSB_ROWS * SSB_MAX_D;
-  uint4* ring = reinterpret_cast<uint4*>(sp) + (size_t)w * stages * 64;  // the warp's ring of W's pieces
+  uint4* ring = reinterpret_cast<uint4*>(sp) + (size_t)w * STAGES * 64;  // the warp's ring of W's pieces
 
   // the lane's rows: 16·mt + 8·hh + g
   auto grow = [&](int mt, int hh) { return row0 + 16 * mt + 8 * hh + g8; };
@@ -1202,7 +1216,6 @@ __global__ void __launch_bounds__(512)
   if (AHEAD) load(res, L - 1, T - 1);
   __syncthreads();  // the slots zeroed, dy_{T-1} in place
   float4 above[2];  // the gradient at the lane's pairs of this layer's h from above
-  int buf = 0;
   pr.mark(SB_LOADS);
   for (int t = T - 1; t >= 0; --t) {
     // the coin of step t and dys_{t-1} at the lane's first (row, d) of the feedback
@@ -1237,7 +1250,6 @@ __global__ void __launch_bounds__(512)
       // -- the cell backward on the lane's pairs; dgates out and into the A
       // buffer; at layer 0 the warp's partial of dx over its 32 gate columns
       {
-        E* ab = abuf + (size_t)buf * SSB_ROWS * lda;
         float* dgo = a.dg[l];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
@@ -1298,7 +1310,6 @@ __global__ void __launch_bounds__(512)
       pr.mark(SB_BARRIERS);
       if (AHEAD && (l > 0 || t > 0)) load(res, l > 0 ? l - 1 : L - 1, l > 0 ? t : t - 1);
       // -- dgates · Wᵀ: the warp's n-tiles, then what each feeds
-      const E* ab = abuf + (size_t)buf * SSB_ROWS * lda;
       const uint4* wl = a.wt[l] + lane;
       auto epilogue = [&](int id, const float (&v)[2][4]) {
         if (id < NB) {  // the carried dh of the warp's units, for step t - 1
@@ -1357,13 +1368,10 @@ __global__ void __launch_bounds__(512)
       }
       // the warp's n-tiles: its dh, then `above` (l > 0) or its dctx tile
       const int id1 = l > 0 || w < CB ? NB + w : -1;
-      // the product of NT n-tiles through the warp's ring of 4 stages, or 2
+      // the product of NT n-tiles through the warp's ring
       auto product = [&](auto& acc, const auto& wn) {
         constexpr int NT = std::extent<std::remove_reference_t<decltype(wn)>>::value;
-        if (stages == 4)
-          ssb_product<P, NT, 4>(acc, ab, lda, wn, kpairs, lane, ring);
-        else
-          ssb_product<P, NT, 2>(acc, ab, lda, wn, kpairs, lane, ring);
+        ssb_product<P, NT, STAGES>(acc, ab, lda, wn, kpairs, lane, ring);
       };
       if (id1 >= 0) {
         float acc[2][2][4];
@@ -1380,10 +1388,7 @@ __global__ void __launch_bounds__(512)
         epilogue(w, acc[0]);
       }
       pr.mark(SB_EPILOGUE);
-      if (nbuf == 1)
-        __syncthreads();  // every warp has read the A buffer before the next cell writes it
-      else
-        buf ^= 1;
+      __syncthreads();  // every warp has read the A buffer before the next cell writes it
       pr.mark(SB_BARRIERS);
     }
     __syncthreads();  // dy_{t-1} of every row in dys_s
@@ -1505,30 +1510,35 @@ static int ss_fwd_launch(const void* h0, const void* c0, const void* y0,
 }
 
 // The backward recurrence (ss_bwd_kernel): 32 batch rows a block of
-// hidden / 8 warps (hidden a multiple of 32 up to 128), ssb_smem_bytes of
-// dynamic shared memory with nbuf (1 or 2) A buffers and W rings of
-// `stages` (2 or 4) k-pairs. wt: every layer's Wᵀ packed for the tier
-// (ops/lstm_ss.py pack_bwd_weights; f32, or bf16 when cbf16); w0x layer 0's
-// W[:d] and proj_w in the tier's type; ctx_dim a multiple of 8 up to hidden
-// (the dctx n-tiles, one a warp), d <= 8. dctx is (batch,
-// ctx_dim) or, STEP_CTX, (batch, t_len, ctx_dim).
-static inline bool ss_bwd_bad_shape(int batch, int t_len, int d, int ctx_dim, int hidden, int layers, int nbuf,
-                                    int stages) {
+// hidden / 8 warps (hidden a multiple of 32 up to 128), ss_bwd_smem_bytes of
+// dynamic shared memory with W rings of ssb_stages k-pairs. wt: every
+// layer's Wᵀ packed for the tier (ops/lstm_ss.py pack_bwd_weights; f32, or
+// bf16 when cbf16); w0x layer 0's W[:d] and proj_w in the tier's type;
+// ctx_dim a multiple of 8 up to hidden (the dctx n-tiles, one a warp), d <=
+// 8. dctx is (batch, ctx_dim) or, STEP_CTX, (batch, t_len, ctx_dim).
+static inline bool ss_bwd_bad_shape(int batch, int t_len, int d, int ctx_dim, int hidden, int layers) {
   return layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden > 128 || hidden % 32 || batch < 1 ||
-         t_len < 1 || d < 1 || d > SSB_MAX_D || ctx_dim < 0 || ctx_dim % 8 || ctx_dim > hidden || nbuf < 1 ||
-         nbuf > 2 || (stages != 2 && stages != 4) || (long long)batch * t_len >= (1LL << 31);
+         t_len < 1 || d < 1 || d > SSB_MAX_D || ctx_dim < 0 || ctx_dim % 8 || ctx_dim > hidden ||
+         (long long)batch * t_len >= (1LL << 31);
+}
+
+// ss_bwd_kernel's dynamic shared memory at its ring depth (ssb_stages)
+template <typename P>
+static inline long long ss_bwd_smem_bytes(int hidden, int layers, int ctx_dim, bool step_ctx) {
+  return ssb_smem_bytes<P>(hidden, layers, ctx_dim, step_ctx, ssb_stages<P>(hidden, layers, ctx_dim, step_ctx));
 }
 
 template <bool STEP_CTX>
 static int ss_bwd_launch(const void* dys, const void* c0, const void* coins, const void* const* wt,
                          const void* w0x, const void* proj_w, const void* const* cs, const void* const* gs, void* const* dg, void* dy,
                          void* dteacher, void* dy0, void* dh0, void* dc0, void* dctx, int batch, int t_len, int d,
-                         int ctx_dim, int hidden, int layers, int nbuf, int stages, int bf16, int cbf16,
-                         void* stream) {
-  if (ss_bwd_bad_shape(batch, t_len, d, ctx_dim, hidden, layers, nbuf, stages)) return (int)cudaErrorInvalidValue;
-  const long long smem = cbf16 ? ssb_smem_bytes<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, STEP_CTX, nbuf, stages)
-                               : ssb_smem_bytes<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, STEP_CTX, nbuf, stages);
+                         int ctx_dim, int hidden, int layers, int bf16, int cbf16, void* stream) {
+  if (ss_bwd_bad_shape(batch, t_len, d, ctx_dim, hidden, layers)) return (int)cudaErrorInvalidValue;
+  const long long smem = cbf16 ? ss_bwd_smem_bytes<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, STEP_CTX)
+                               : ss_bwd_smem_bytes<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, STEP_CTX);
   if (smem > lstm_mma::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const bool deep = (cbf16 ? ssb_stages<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, STEP_CTX)
+                           : ssb_stages<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, STEP_CTX)) == 4;
   SsBwdArgs a = {};
   for (int l = 0; l < layers; ++l) {
     a.wt[l] = static_cast<const uint4*>(wt[l]);
@@ -1544,15 +1554,17 @@ static int ss_bwd_launch(const void* dys, const void* c0, const void* coins, con
               *f_coins = static_cast<const float*>(coins);
   float *o_dy = static_cast<float*>(dy), *o_dt = static_cast<float*>(dteacher), *o_dy0 = static_cast<float*>(dy0),
         *o_dh0 = static_cast<float*>(dh0), *o_dc0 = static_cast<float*>(dc0), *o_dctx = static_cast<float*>(dctx);
-#define SSB(RT, P)                                                                                              \
-  launch_with_smem(ss_bwd_kernel<RT, STEP_CTX, P>, grid, threads, (size_t)smem, st, f_dys, f_c0, f_coins, a, o_dy, \
-                   o_dt, o_dy0, o_dh0, o_dc0, o_dctx, batch, t_len, d, ctx_dim, hidden, layers, nbuf, stages)
+#define SSB_AT(RT, P, S)                                                                                         \
+  launch_with_smem(ss_bwd_kernel<RT, STEP_CTX, P, S>, grid, threads, (size_t)smem, st, f_dys, f_c0, f_coins, a,   \
+                   o_dy, o_dt, o_dy0, o_dh0, o_dc0, o_dctx, batch, t_len, d, ctx_dim, hidden, layers)
+#define SSB(RT, P) (deep ? SSB_AT(RT, P, 4) : SSB_AT(RT, P, 2))
   using BF = __nv_bfloat16;
   if (bf16 && cbf16) return SSB(BF, lstm_mma::Bf16Mma);
   if (bf16) return SSB(BF, lstm_mma::Tf32Mma);
   if (cbf16) return SSB(float, lstm_mma::Bf16Mma);
   return SSB(float, lstm_mma::Tf32Mma);
 #undef SSB
+#undef SSB_AT
 }
 
 // dW/db of every decoder layer (the reduction above; layer 0's input rebuilt

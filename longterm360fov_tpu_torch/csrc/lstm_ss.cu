@@ -208,18 +208,18 @@ int ss_fwd(const void* h0, const void* c0, const void* y0, const void* teacher,
 int ss_bwd(const void* dys, const void* c0, const void* coins, const void* const* wt, const void* w0x,
            const void* proj_w, const void* const* cs, const void* const* gs, void* const* dg, void* dy,
            void* dteacher, void* dy0, void* dh0, void* dc0, void* dctx, int batch, int t_len, int d,
-           int ctx_dim, int hidden, int layers, int nbuf, int stages, int bf16, int cbf16, void* stream) {
+           int ctx_dim, int hidden, int layers, int bf16, int cbf16, void* stream) {
   return ss_bwd_launch<false>(dys, c0, coins, wt, w0x, proj_w, cs, gs, dg, dy, dteacher, dy0, dh0, dc0, dctx, batch,
-                              t_len, d, ctx_dim, hidden, layers, nbuf, stages, bf16, cbf16, stream);
+                              t_len, d, ctx_dim, hidden, layers, bf16, cbf16, stream);
 }
 
-// The backward recurrence's dynamic shared memory (ssb_smem_bytes) in the
-// tier (cbf16: bf16) with nbuf A buffers and W rings of `stages` k-pairs,
-// per step (step_ctx) or static context; -1 for a shape it does not take.
-long long ss_bwd_smem(int hidden, int layers, int d, int ctx_dim, int step_ctx, int nbuf, int stages, int cbf16) {
-  if (ss_bwd_bad_shape(1, 1, d, ctx_dim, hidden, layers, nbuf, stages)) return -1;
-  return cbf16 ? ssb_smem_bytes<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, step_ctx != 0, nbuf, stages)
-               : ssb_smem_bytes<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, step_ctx != 0, nbuf, stages);
+// The backward recurrence's dynamic shared memory (ss_bwd_smem_bytes, at
+// the ring depth the launcher picks) in the tier (cbf16: bf16), per step
+// (step_ctx) or static context; -1 for a shape it does not take.
+long long ss_bwd_smem(int hidden, int layers, int d, int ctx_dim, int step_ctx, int cbf16) {
+  if (ss_bwd_bad_shape(1, 1, d, ctx_dim, hidden, layers)) return -1;
+  return cbf16 ? ss_bwd_smem_bytes<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, step_ctx != 0)
+               : ss_bwd_smem_bytes<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, step_ctx != 0);
 }
 
 int ss_dw(const void* h0, const void* y0, const void* teacher,

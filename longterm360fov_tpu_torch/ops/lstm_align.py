@@ -550,7 +550,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.align_peer_fwd_smem.argtypes = [i32] * 10
     lib.align_peer_fwd_smem.restype = ctypes.c_longlong
     lib.align_dec_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 9 + [vp]
-    lib.align_dec_bwd.argtypes = [vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 10 + [vp]
+    lib.align_dec_bwd.argtypes = [vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 8 + [vp]
     lib.align_peer_bwd.argtypes = [vp] * 11 + [i32] * 8 + [vp]
     lib.peer_bwd_smem.argtypes = [i32] * 4
     lib.peer_bwd_stream_bytes.argtypes = [i32] * 2

@@ -398,13 +398,12 @@ ss_fwd.launches = ss_fwd.launches_bf16 = 0
 class SsBwdGeom(NamedTuple):
     """A block of the backward recurrence on the tensor cores
     (``csrc/lstm_common.cuh`` ss_bwd_kernel): ``rows`` batch rows (two m16
-    tiles) in ``warps`` warps (one a unit block of 8), ``nbuf`` A buffers of
-    dgates (2: one barrier a layer-step), each warp's ring of W's pieces
-    ``stages`` k-pairs deep (W read ``stages - 1`` k-pairs ahead of the
-    mma), and the block's dynamic shared memory in bytes."""
+    tiles) in ``warps`` warps (one a unit block of 8), each warp's ring of
+    W's pieces ``stages`` k-pairs deep (W read ``stages - 1`` k-pairs ahead
+    of the mma; the kernel's template parameter, which its launcher picks
+    as this does), and the block's dynamic shared memory in bytes."""
     rows: int
     warps: int
-    nbuf: int
     stages: int
     smem: int
 
@@ -413,19 +412,19 @@ _BWD_ROWS = 32  # csrc/lstm_common.cuh SSB_ROWS
 _BWD_MAX_D = 8  # SSB_MAX_D: coordinates a token
 
 
-# (A buffers, ring stages) in the order preferred: W's L2 latency hidden
-# four k-pairs deep outweighs a second barrier a layer-step
-_BWD_LAYOUTS = ((2, 4), (1, 4), (2, 2), (1, 2))
+# the W ring's depths in the order preferred (ssb_stages): 4 k-pairs hide
+# W's L2 latency; 2 only where a deeper stack's carries leave no room
+_BWD_STAGES = (4, 2)
 
 
-def _bwd_smem(hidden: int, layers: int, ctx_dim: int, step_ctx: bool, nbuf: int, stages: int, f32: bool) -> int:
-    """``ssb_smem_bytes``: ``nbuf`` A buffers of 32 rows x (4H + a 16-byte
-    pad) in the tier's type, the carried dh and dc of every layer (f32), the
-    static context's dctx sums, dy_t of the rows, the warps' partials of dx
-    and each warp's ring of ``stages`` k-pairs of two n-tiles (1 KB a
-    k-pair); hidden / 8 warps."""
+def _bwd_smem(hidden: int, layers: int, ctx_dim: int, step_ctx: bool, stages: int, f32: bool) -> int:
+    """``ssb_smem_bytes``: the A buffer of 32 rows x (4H + a 16-byte pad)
+    of dgates in the tier's type, the carried dh and dc of every layer
+    (f32), the static context's dctx sums, dy_t of the rows, the warps'
+    partials of dx and each warp's ring of ``stages`` k-pairs of two
+    n-tiles (1 KB a k-pair); hidden / 8 warps."""
     e, warps = (4 if f32 else 2), hidden // 8
-    return (nbuf * e * _BWD_ROWS * (4 * hidden + 16 // e) + 8 * layers * _BWD_ROWS * hidden
+    return (e * _BWD_ROWS * (4 * hidden + 16 // e) + 8 * layers * _BWD_ROWS * hidden
             + (0 if step_ctx else 4 * _BWD_ROWS * ctx_dim) + 4 * _BWD_ROWS * _BWD_MAX_D * (1 + warps)
             + 1024 * stages * warps)
 
@@ -433,9 +432,8 @@ def _bwd_smem(hidden: int, layers: int, ctx_dim: int, step_ctx: bool, nbuf: int,
 def bwd_block(hidden: int, layers: int, d: int, ctx_dim: int, compute_dtype=torch.float32,
               step_ctx: bool = False) -> SsBwdGeom:
     """The block of the backward recurrence: 32 rows in hidden / 8 warps,
-    in the first layout of ``_BWD_LAYOUTS`` that fits beside every layer's
-    carries: two A buffers and rings of 4 k-pairs, then one A buffer, then
-    rings of 2.
+    with the deepest W ring of ``_BWD_STAGES`` that fits beside every
+    layer's carries: 4 k-pairs, else 2.
     Raises for shapes the kernel does not take: hidden not a multiple of 32
     up to 128 (a warp a unit block, at most 16), more than 8 layers, d
     outside 1..8, a context not of whole n8 tiles up to
@@ -451,10 +449,10 @@ def bwd_block(hidden: int, layers: int, d: int, ctx_dim: int, compute_dtype=torc
         raise ValueError(f"the backward recurrence takes ctx_dim a multiple of 8 up to hidden (one dctx n-tile a "
                          f"warp), got ctx_dim={ctx_dim}, hidden={hidden}")
     f32 = compute_dtype != torch.bfloat16
-    for nbuf, stages in _BWD_LAYOUTS:
-        smem = _bwd_smem(hidden, layers, ctx_dim, step_ctx, nbuf, stages, f32)
+    for stages in _BWD_STAGES:
+        smem = _bwd_smem(hidden, layers, ctx_dim, step_ctx, stages, f32)
         if smem <= _SMEM_LIMIT:
-            return SsBwdGeom(_BWD_ROWS, hidden // 8, nbuf, stages, smem)
+            return SsBwdGeom(_BWD_ROWS, hidden // 8, stages, smem)
     raise ValueError(
         f"layers={layers}, hidden={hidden}, ctx_dim={ctx_dim}: the backward recurrence's block of {_BWD_ROWS} rows "
         f"keeps every layer's carried dh and dc ({8 * layers * _BWD_ROWS * hidden} bytes) beside an A buffer of "
@@ -542,7 +540,7 @@ def bwd_launch(fn, name, params, proj_w, c0, coins, res: Residuals, dys, ctx_dim
     hidden, layers = proj_w.shape[0], len(params)
     dev = dys.device
     rdt = res.hs[0].dtype
-    geo = bwd_block(hidden, layers, d, ctx_dim, compute_dtype, step_ctx)
+    bwd_block(hidden, layers, d, ctx_dim, compute_dtype, step_ctx)  # raises for a shape the kernel does not take
     wt = pack_bwd_weights(params, d, ctx_dim, compute_dtype)
     w0x, proj_w = in_compute([params[0].w[:d].contiguous(), proj_w], compute_dtype)
     dgates = [torch.empty((batch, t_len, 4 * hidden), device=dev) for _ in params]
@@ -561,7 +559,7 @@ def bwd_launch(fn, name, params, proj_w, c0, coins, res: Residuals, dys, ctx_dim
             dys.data_ptr(), c0.data_ptr(), coins.data_ptr(), _ptrs(wt), w0x.data_ptr(), proj_w.data_ptr(),
             _ptrs(res.cs), _ptrs(res.gs), _ptrs(dgates), dy.data_ptr(), dteacher.data_ptr(),
             dy0.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), None if dctx is None else dctx.data_ptr(),
-            batch, t_len, d, ctx_dim, hidden, layers, geo.nbuf, geo.stages, int(rdt == torch.bfloat16),
+            batch, t_len, d, ctx_dim, hidden, layers, int(rdt == torch.bfloat16),
             int(compute_dtype == torch.bfloat16), _stream(),
         )
     _raise_on(err, name)
@@ -687,8 +685,8 @@ def _library() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
     lib.ss_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 9 + [vp]
-    lib.ss_bwd.argtypes = [vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 10 + [vp]
-    lib.ss_bwd_smem.argtypes = [i32] * 8
+    lib.ss_bwd.argtypes = [vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 8 + [vp]
+    lib.ss_bwd_smem.argtypes = [i32] * 6
     lib.ss_bwd_smem.restype = ctypes.c_longlong
     lib.ss_dw.argtypes = [vp] * 6 + [arr] * 4 + [vp, vp, arr, arr] + [i32] * 10 + [vp]
     lib.ss_dproj.argtypes = [vp] * 5 + [i32] * 7 + [vp]

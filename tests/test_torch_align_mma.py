@@ -84,7 +84,8 @@ def test_packed_bwd_weights_are_w_transposed_in_product_order(layers, ctx_dim, h
     """Read back as B fragments, each layer's packed stream is Wᵀ with its
     columns in the product's order: layer 0 [dh (W[D+C:]) | dctx
     (W[D:D+C])], layer l > 0 [dh (W[H:]) | the layer below's h (W[:H])], in
-    the tier's type (dx, from W[:D], runs on the FMA units)."""
+    the tier's type (dx, from W[:D], is not in the stream: the warps'
+    ``mma.sync`` partials over their own gate columns compute it)."""
     rng = np.random.default_rng(layers + ctx_dim)
     d = 3
     ps = _stack(rng, d + ctx_dim, layers, hidden)
@@ -136,15 +137,14 @@ def test_packed_bwd_product_is_dgates_times_w_transposed(preset, cd):
 def test_bwd_block_at_the_training_shapes(preset, step_ctx, cd):
     """Every preset that trains the scheduled-sampling decoder: 32 rows in
     16 warps (one a unit block of 8), W read 3 k-pairs ahead through rings
-    of 4; bf16 with two A buffers of dgates, f32 (whose A buffer is twice
-    the size) with one; within a block's shared memory, the smem the
-    kernel's ssb_smem_bytes counts."""
+    of 4, one A buffer of dgates in either tier; within a block's shared
+    memory, the smem the kernel's ssb_smem_bytes counts."""
     m = get_preset(preset).model
     geo = lstm_ss.bwd_block(m.hidden, m.layers, m.d, m.ctx_dim, cd, step_ctx)
-    assert (geo.rows, geo.warps, geo.nbuf, geo.stages) == (32, 16, 2 if cd == BF else 1, 4) and geo.smem <= SMEM
+    assert (geo.rows, geo.warps, geo.stages) == (32, 16, 4) and geo.smem <= SMEM
     e = 4 if cd == torch.float32 else 2
     a_buf = 32 * (4 * m.hidden + 16 // e) * e
-    assert geo.smem == (geo.nbuf * a_buf + 8 * m.layers * 32 * m.hidden + (0 if step_ctx else 4 * 32 * m.ctx_dim)
+    assert geo.smem == (a_buf + 8 * m.layers * 32 * m.hidden + (0 if step_ctx else 4 * 32 * m.ctx_dim)
                         + 4 * 32 * 8 * (1 + 16) + 16 * 1024 * 4)
 
 
@@ -152,19 +152,20 @@ def test_bwd_block_at_the_training_shapes(preset, step_ctx, cd):
 @pytest.mark.parametrize("step_ctx", [False, True])
 @pytest.mark.parametrize("layers", range(1, 9))
 def test_bwd_block_takes_the_first_layout_that_fits(layers, step_ctx, cd):
-    """Deeper stacks keep every layer's carried dh and dc: the first of two
-    A buffers and rings of 4, one A buffer (an extra barrier a layer-step),
-    rings of 2 that fits; refused past the last."""
+    """Deeper stacks keep every layer's carried dh and dc: W rings of 4
+    k-pairs where they fit, else of 2 (f32 at 3 layers, bf16 at 4); refused
+    past that."""
     f32 = cd == torch.float32
-    fits = [(n, s) for n, s in lstm_ss._BWD_LAYOUTS if lstm_ss._bwd_smem(128, layers, 128, step_ctx, n, s, f32) <= SMEM]
+    fits = [s for s in lstm_ss._BWD_STAGES if lstm_ss._bwd_smem(128, layers, 128, step_ctx, s, f32) <= SMEM]
     assert fits or layers > 3  # the card tests' and the presets' depths, in both tiers and context types
+    assert fits[:1] == ([4] if layers <= 2 + (not f32) else [2] if layers <= 3 + (not f32) else [])
     if not fits:
         with pytest.raises(ValueError, match=f"layers={layers}, hidden=128, ctx_dim=128: .* more than {SMEM}"):
             lstm_ss.bwd_block(128, layers, 3, 128, cd, step_ctx)
         return
     geo = lstm_ss.bwd_block(128, layers, 3, 128, cd, step_ctx)
-    assert (geo.nbuf, geo.stages) == fits[0]
-    assert geo.smem == lstm_ss._bwd_smem(128, layers, 128, step_ctx, geo.nbuf, geo.stages, f32) <= SMEM
+    assert geo.stages == fits[0]
+    assert geo.smem == lstm_ss._bwd_smem(128, layers, 128, step_ctx, geo.stages, f32) <= SMEM
 
 
 def test_bwd_block_refuses_what_the_kernel_does_not_take():
@@ -179,7 +180,7 @@ def test_bwd_block_refuses_what_the_kernel_does_not_take():
     for c in (12, 136):
         with pytest.raises(ValueError, match=f"ctx_dim a multiple of 8 up to hidden .*got ctx_dim={c}, hidden=128"):
             lstm_ss.bwd_block(128, 2, 3, c)
-    assert lstm_ss.bwd_block(64, 2, 3, 64).warps == 8 and lstm_ss.bwd_block(128, 2, 8, 0, BF).nbuf == 2
+    assert lstm_ss.bwd_block(64, 2, 3, 64).warps == 8 and lstm_ss.bwd_block(128, 2, 8, 0, BF).stages == 4
 
 
 @pytest.mark.parametrize("cd", [torch.float32, BF])

@@ -1017,6 +1017,24 @@ def test_ss_bwd_tensor_core_shapes(step, layers, c, coins, batch, t, rd, cd):
     assert all(torch.equal(x, y) for x, y in zip(_flat(out), _flat(again)))
 
 
+@pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("step", [False, True])
+def test_ss_bwd_two_k_pair_ring_matches_plain(step, rd):
+    """A bf16 stack of 4 layers (C = 128) leaves no room for the W ring of
+    4 k-pairs and runs the instance whose ring is 2 deep: against the plain
+    version, repeats bit-equal. (The f32 tier's ring-2 instance, at 3
+    layers, runs in test_ss_kernels_match_plain and
+    test_ss_bwd_tensor_core_shapes.)"""
+    assert lstm_ss.bwd_block(128, 4, 3, 128, BF, step).stages == 2
+    args = _bwd_case(65, 4, 128, "bernoulli", seed=4, t=20, step=step, rd=rd)
+    kernel = lstm_align.dec_bwd if step else lstm_ss.ss_bwd
+    out = kernel(*args, BF)
+    again = kernel(*args, BF)
+    refs = _plains(BF, lambda x: lstm_ss._bwd_recurrence_reference(*args, step_ctx=step, compute_dtype=x))
+    _check(_flat(out), [_flat(r) for r in refs], "rec", BF)
+    assert all(torch.equal(x, y) for x, y in zip(_flat(out), _flat(again)))
+
+
 @pytest.mark.parametrize("cd", COMPUTE)
 @pytest.mark.parametrize("step", [False, True])
 def test_ss_bwd_permuted_batch_gives_the_permuted_answer(step, cd):
