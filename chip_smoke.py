@@ -16,16 +16,21 @@ one line each or more:
    the lockstep peer backward (``align_peer_bwd_kernel``: both products on
    ``mma.sync``, three-pass TF32 in f32, bf16 in bf16), the bf16 tiers of
    the peer context, the encoder, the serve kernel and the cell
-   (``lstm_mma.cuh``: ``mma.sync`` bf16), the f32 tiers of the peer context
-   and the serve kernel (``lstm_mma.cuh``, three-pass TF32; each block's
-   shared memory as the library and the chooser count it) and both block
-   shapes of both
+   (``lstm_mma.cuh``: ``mma.sync`` bf16), the f32 tiers of the peer context,
+   the encoder and the serve kernel (``lstm_mma.cuh``, three-pass TF32; each
+   block's shared memory as the library and the chooser count it), every
+   instance of the training backward ``ss_bwd_kernel`` in its three modes
+   (the decoder's static and per-step context, row 5's teacher-forced mode)
+   and of the lockstep peer forward, and both block shapes of both
    tiers of the transformer decode (``transformer_decode_mma.cuh``, bf16;
    ``transformer_decode_f32mma.cuh``, three-pass TF32; 64 and 32 rows);
 3. each kernel against its plain PyTorch version at full width (hidden 128),
    at batches that are not a multiple of the kernels' row tiles:
    ``fused_serve`` without and with a static context (C = 128),
-   ``fused_encode``, the ``lstm_seq_states`` forward, backward-recurrence and
+   ``fused_encode`` (its repeats and permuted batches bit-equal), the
+   ``lstm_seq_states`` forward, backward-recurrence (its repeats and
+   permuted batches bit-equal; also at the 10 s encoder's shape, B = 4096,
+   T = 100, L = 2, f32 residuals, in both compute types) and
    dW-reduction kernels, and the ``ss_decode`` forward, backward-recurrence,
    dW and dproj kernels (30 + 30 steps; 1 and 2 layers, with and without a
    context, f32 and bf16 residuals, Bernoulli, all-teacher and all-model
@@ -107,7 +112,8 @@ one line each or more:
    B = 4096 through the ``lstm_seq_states`` kernels, with evaluation,
    checkpoints and a resume that equals the uninterrupted run, one step
    through the kernels against plain autograd, the step's speed, and the
-   training kernels alone against plain and cuDNN/cuBLAS; then
+   training kernels alone against plain and cuDNN/cuBLAS (the backward, on
+   the tensor cores, beside its FMA design's time); then
    ``train_compute="bfloat16"`` (:func:`drive_bf16_training`): a short
    ``train_loop`` through the bf16-compute kernels (counted apart from the
    f32 ones), evaluation, a bit-equal resume, one step on the card against
@@ -121,7 +127,8 @@ one line each or more:
    ``fused_encode`` + the static-context ``fused_serve``; every answer
    equals the port's plain path on the CPU and, given the same peer
    context, the numpy oracle. Then serve-bench at B = 16384 and 65536, and
-   both kernels alone against plain (``fused_encode`` also against cuDNN);
+   both kernels alone against plain (``fused_encode`` at 262,144 and 65,536
+   rows beside its FMA design's times, and at 65,536 against cuDNN);
 7. the ``stacked-ss-crossuser`` training main path: ``train.train_loop`` at
    B = 4096 with K = 4 peers and ``teacher_prob`` annealing 1 → 0, through
    ``ss_decode`` (decoder) and ``lstm_seq_states`` (encoder and peers), with
@@ -148,7 +155,10 @@ one line each or more:
    beside its time before its tensor-core design (``BEFORE``), its bound
    (f32: its products at a third of the dense TF32 peak, the gates' h part,
    exact in TF32 on bf16 residuals, at half of it) beside the FMA units'
-   bound of the same work; then one line per dW reduction (f32 and
+   bound of the same work; row 5's backward alone at the encoder's shape
+   (T = 100, L = 2, f32 residuals) in both compute types against plain and
+   cuDNN's backward data, beside its FMA design's times (``BEFORE``); then
+   one line per dW reduction (f32 and
    bf16 compute, phases 5, 7 and 9) with its time beside its time before
    the pack-and-tensor-core design (``BEFORE``), its bound's share of it,
    cuBLAS's time and the registers and shared memory of its kernels; phase
@@ -212,9 +222,9 @@ one line each or more:
    (G = 8); grouped against per-row calls timed at both batches, profiles
    of both at 4096; the f32 shared tier alone against plain at B = 4096
    beside its FMA design's time, and the per-row kernel alone at the TPU
-   streamed tier's shape (window 0) and, in bf16, at the preset's window 8
-   beside its f32 twin and both tiers' FMA designs' times (B = 4096), and
-   at B = 16384;
+   streamed tier's shape (window 0), in f32 at the preset's window 8
+   against its plain version, and, in bf16, at window 8 beside its f32
+   twin and both tiers' FMA designs' times (B = 4096), and at B = 16384;
    ``transformer-30`` grouped at B = 16384;
 16. the ``transformer-10s`` training main path: ``train.train_loop`` at
    B = 1024 (plain encoder at T = 100, as in JAX), evaluation through the
@@ -371,7 +381,10 @@ HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
 # given states (row 3, B = 262,144) and the f32 peer context (B = 4096 and
 # 65,536) on the FMA units; the scheduled-sampling decoder's backward (row 6
 # at B = 4096, T = 30; row 7 at the 10 s shape) and the lockstep peer forward
-# (row 7) on the FMA units, both compute tiers
+# (row 7) on the FMA units, both compute tiers; the f32 encoder (row 4: 65,536
+# and 262,144 rows) and row 5's backward (both compute tiers, seq2seq-tf-30's
+# shape and the 10 s encoder's, the latter from PERF.md §5's step profile) on
+# the FMA units
 BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_decode_dw": 3.920,
           "ss_decode_dw_bf16": 3.777, "aligned_dec_dw": 20.739, "aligned_dec_dw_bf16": 20.681,
           "aligned_peer_dw": 20.808, "aligned_peer_dw_bf16": 21.833, "fused_encode_tokens_bf16": 19.151,
@@ -388,7 +401,9 @@ BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_dec
           "fused_serve_ctx C=64": 50.467, "fused_serve_peers": 192.240, "fused_decode": 35.809, "peer_context": 14.098,
           "peer_context B=65536": 219.967, "ss_decode_bwd": 5.706, "ss_decode_bwd_bf16": 5.499,
           "aligned_dec_bwd": 19.415, "aligned_dec_bwd_bf16": 19.800, "aligned_peer_fwd": 19.271,
-          "aligned_peer_fwd_bf16": 19.159}
+          "aligned_peer_fwd_bf16": 19.159, "fused_encode": 8.650, "fused_encode 262144 rows": 34.230,
+          "lstm_seq_states_bwd": 1.327, "lstm_seq_states_bwd_bf16": 1.368, "lstm_seq_states_bwd 10s": 13.9,
+          "lstm_seq_states_bwd_bf16 10s": 14.2}
 DW_NAMES = [n for n in BEFORE if n.rsplit("_bf16", 1)[0].endswith("_dw")]
 # the cell kernel against lstm_cell: one step, exact f32 FMAs in another order
 # (tests/test_fused_lstm.py's bound for the TPU cell)
@@ -821,14 +836,18 @@ def serve_rows(rows):
         fused_lstm.serve_tc_rows = choose
 
 
-def check_encode(dev, batch, layers, seed, t=30, cd=F32):
+def check_encode(dev, batch, layers, seed, t=30, cd=F32, repeat=False):
     """fused_encode in the compute type ``cd`` against
-    fused_encode_reference (:func:`check_outputs`, kind "encode")."""
+    fused_encode_reference (:func:`check_outputs`, kind "encode");
+    ``repeat``: also a repeat and a permuted batch (:func:`same_rows`)."""
     rng = np.random.default_rng(seed)
     ps = stack(rng, dev, 3, layers)
     xs = randn(rng, dev, (batch, t, 3), 0.3)
     out = fused_lstm.fused_encode(ps, xs, compute_dtype=cd)
     torch.cuda.synchronize()
+    if repeat:
+        same_rows("fused_encode", out, lambda perm: fused_lstm.fused_encode(ps, take(xs, perm), compute_dtype=cd),
+                  batch, seed, f"B={batch}, L={layers}")
     return check_outputs("fused_encode", [out], plains(cd, lambda c: [fused_lstm.fused_encode_reference(ps, xs, c)]),
                          f"B={batch}, L={layers}", "encode", cd)
 
@@ -970,18 +989,20 @@ def lstm_case(dev, batch, layers, seed, t=30, d=3, h=128):
     return ps, ts[:3], ts[3:]
 
 
-def check_lstm_kernels(dev, batch, layers, rd, seed, cd=F32):
+def check_lstm_kernels(dev, batch, layers, rd, seed, cd=F32, t=30):
     """The three lstm_seq_states kernels in the compute type ``cd`` against
     their plain versions on the same inputs (the backward fed the kernel's
-    residuals, the reduction the plain dgates) → check_outputs' reading of
-    each."""
-    ps, (xs, h0, c0), up = lstm_case(dev, batch, layers, seed)
-    what = f"B={batch}, L={layers}, {str(rd)[6:]} residuals, {str(cd)[6:]} compute"
+    residuals and random dhs_top, dhT, dcT, the reduction the plain
+    dgates), the backward's repeat and permuted batch bit-equal → check_outputs'
+    reading of each."""
+    ps, (xs, h0, c0), up = lstm_case(dev, batch, layers, seed, t=t)
+    what = f"B={batch}, T={t}, L={layers}, {str(rd)[6:]} residuals, {str(cd)[6:]} compute"
     res = lstm_train.lstm_fwd(ps, xs, h0, c0, rd, cd)
     refs = plains(cd, lambda c: lstm_train._forward_reference(ps, xs, h0, c0, rd, c))
     torch.cuda.synchronize()
     errs = {"fwd": check_outputs("lstm_seq_states_fwd", fwd_outs(res), [fwd_outs(r) for r in refs], what, "fwd", cd)}
     bw = lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=cd)
+    same_bwd_rows(ps, c0, res, up, cd, bw, seed, what)
     bws = plains(cd, lambda c: lstm_train._bwd_recurrence_reference(ps, c0, res, *up, c))
     dps = lstm_train.lstm_dw(ps, xs, h0, res, bws[0][0], cd)
     dws = plains(cd, lambda c: lstm_train._dw_reference(ps, xs, h0, res, bws[0][0], c))
@@ -991,6 +1012,22 @@ def check_lstm_kernels(dev, batch, layers, rd, seed, cd=F32):
                                unrounded=layers)
     errs["pack"] = check_packs(lstm_train.lstm_dw, (ps, xs, h0, res, bws[0][0]), layers, xs, h0, res, what, cd)
     return errs
+
+
+def same_bwd_rows(ps, c0, res, up, cd, out, seed, what):
+    """lstm_seq_states' backward on the same inputs again and on the batch
+    permuted: every output bit-equal, in the permuted order (dgates and dxs
+    along their rows, dh0 and dc0 along their batch axis)."""
+    batch = c0.shape[1]
+    perm = torch.randperm(batch, generator=torch.Generator().manual_seed(seed)).to(c0.device)
+    again = lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=cd)
+    res_p = lstm_train.Residuals(*[[x[perm] for x in part] for part in res])
+    cut = lstm_train.lstm_bwd(ps, c0[:, perm], res_p, up[0][perm], up[1][:, perm], up[2][:, perm], compute_dtype=cd)
+    if not all(torch.equal(a, b) for a, b in zip(grads(out), grads(again))):
+        raise AssertionError(f"lstm_seq_states_bwd: a repeat is not bit-equal ({what})")
+    moved = [*[g[perm] for g in out[0]], out[1][perm], out[2][:, perm], out[3][:, perm]]
+    if not all(torch.equal(a, b) for a, b in zip(moved, grads(cut))):
+        raise AssertionError(f"lstm_seq_states_bwd: a row's gradients depend on its place in the batch ({what})")
 
 
 def check_packs(dw, args, layers, x0, h0, res, what, cd):
@@ -1190,18 +1227,26 @@ def check_all_kernels(dev):
         errs[f"B={b} L={l} C={c}"] = check_serve(dev, b, l, c, seed=l)
     print(f"fused_serve vs plain, hidden 128, 30+30 steps: max_abs_err {json.dumps(errs)} "
           f"(tolerance {KERNEL_TOL})", flush=True)
-    errs = {f"B={b} L={l}": check_encode(dev, b, l, seed=l) for b in (16387, 262144) for l in (1, 2)}
-    print(f"fused_encode vs plain, hidden 128, T=30: max_abs_err {json.dumps(errs)} "
-          f"(tolerance {ENC_TOL})", flush=True)
+    errs = {f"B={b} L={l}": check_encode(dev, b, l, seed=l, repeat=True) for b in (16387, 262144) for l in (1, 2)}
+    print(f"fused_encode vs plain (three-pass TF32, lstm_mma::encoder<Tf32Mma>; repeats and permuted batches "
+          f"bit-equal), hidden 128, T=30: max_abs_err {json.dumps(errs)} (tolerance {ENC_TOL})", flush=True)
     errs = {}
     for batch in (4099, TRAIN_B):
         for layers in (1, 2):
             for rd in (torch.float32, torch.bfloat16):
                 errs[f"B={batch} L={layers} {str(rd)[6:]}"] = check_lstm_kernels(dev, batch, layers, rd, seed=layers)
     print(f"lstm_seq_states kernels vs plain (the dW reduction's pack kernel at every layer too, and the reduction "
-          f"bit-equal on repeat), hidden 128, T=30, max_abs_err {json.dumps(errs)} "
-          f"(forward {FWD_TOL}, plus one bf16 step with bf16 residuals; backward {BWD_REL_TOL} "
+          f"bit-equal on repeat; the backward's repeats and permuted batches bit-equal), hidden 128, T=30, max_abs_err "
+          f"{json.dumps(errs)} (forward {FWD_TOL}, plus one bf16 step with bf16 residuals; backward {BWD_REL_TOL} "
           f"of max|plain|)", flush=True)
+    # row 5's backward at the 10 s encoder's shape, on the f32 residuals it trains with, in both compute types
+    errs = {f"B={TRAIN_B} T=100 L=2 float32 {str(cd)[6:]} compute": check_lstm_kernels(dev, TRAIN_B, 2, F32, 10, cd,
+                                                                                       t=100)
+            for cd in (F32, BF)}
+    print(f"lstm_seq_states kernels vs plain at the stacked-ss-crossuser-10s encoder's shape (the backward on "
+          f"ss_bwd_kernel's teacher-forced mode), hidden 128: {json.dumps(errs)} (f32 compute: forward {FWD_TOL}, "
+          f"backward and reduction {BWD_REL_TOL} of max|plain|; bf16 compute: limits bf16 "
+          f"{json.dumps(BF16C_TIGHT)}, f32 {json.dumps(BF16C_CONTRACT)}, floor {BF16C_FLOOR})", flush=True)
     errs = {}
     for batch in (4099, TRAIN_B):
         for layers, ctx_dim in ((1, 0), (2, 128), (2, 64)):
@@ -2110,9 +2155,12 @@ def time_lstm_kernels(dev, smi):
     out = {}
     for name, fns in calls.items():
         out[name] = in_turns(fns, {"plain": 3, "kernel": 10, "library": 10})
-        record(name, out[name], flop + (2 * TRAIN_B * 30 * 4 * 128 if name.endswith("dw") else 0), *io[name])
+        # the backward's dgates · Wᵀ on the tensor cores in three-pass TF32 (ss_bwd_kernel's teacher-forced mode)
+        record(name, out[name], flop + (2 * TRAIN_B * 30 * 4 * 128 if name.endswith("dw") else 0), *io[name],
+               peak=TF32X3_FLOPS if name.endswith("bwd") else F32_FLOPS)
     print(f"lstm_seq_states kernels alone (ms, B={TRAIN_B}, L=1, bf16 residuals, CUDA events; library: "
           f"cuDNN nn.LSTM forward, its backward data, one cuBLAS bmm; {smi}): {json.dumps(out)}", flush=True)
+    report_redesign("lstm_seq_states_bwd", smi, fma_bound=bound(flop, *io["lstm_seq_states_bwd"])[0])
     bcalls = {
         "lstm_seq_states_fwd_bf16": dict(kernel=lambda: lstm_train.lstm_fwd(ps, xs, h0, c0, rd, BF),
                                          plain=lambda: lstm_train._forward_reference(ps, xs, h0, c0, rd, BF)),
@@ -2129,6 +2177,40 @@ def time_lstm_kernels(dev, smi):
     time_bf16_tier(bcalls, bwork, [ps[0].w], {"plain": 3, "kernel": 10, "f32_kernel": 10, "library": 10},
                    f"lstm_seq_states bf16-compute kernels alone (ms, B={TRAIN_B}, L=1, bf16 residuals, CUDA "
                    f"events, against the f32-compute kernels; library: one cuBLAS bmm on bf16 operands)", smi)
+    report_redesign("lstm_seq_states_bwd_bf16", smi, fma_bound=bound(flop, *io["lstm_seq_states_bwd"])[0],
+                    no_library="none (cuDNN's bf16 LSTM rounds h and c too: another function)")
+
+
+def time_lstm_bwd_10s(dev, smi):
+    """Row 5's backward alone at the stacked-ss-crossuser-10s encoder's shape
+    (B = 4096, T = 100, L = 2, f32 residuals, as it trains), in both compute
+    types against its plain versions and cuDNN's backward data (nn.LSTM in
+    f32, TF32 off), in turns; each beside its FMA design's time (BEFORE,
+    PERF.md §5) and its bound."""
+    ps, (xs, h0, c0), up = lstm_case(dev, TRAIN_B, 2, seed=12, t=100)
+    res = lstm_train.lstm_fwd(ps, xs, h0, c0, F32)
+    dg, *rest = lstm_train.lstm_bwd(ps, c0, res, *up)
+    net = cudnn_lstm(ps, 3, dev, training=True)
+    x_g = xs.clone().requires_grad_(True)
+    h0_g, c0_g = h0.clone().requires_grad_(True), c0.clone().requires_grad_(True)
+    y, (hn, cn) = net(x_g, (h0_g, c0_g))
+    fns = {"plain": lambda: lstm_train._bwd_recurrence_reference(ps, c0, res, *up),
+           "kernel": lambda: lstm_train.lstm_bwd(ps, c0, res, *up),
+           "bf16_kernel": lambda: lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=BF),
+           "bf16_plain": lambda: lstm_train._bwd_recurrence_reference(ps, c0, res, *up, BF),
+           "library": lambda: torch.autograd.grad((y, hn, cn), (x_g, h0_g, c0_g), up, retain_graph=True)}
+    ms = in_turns(fns, {"plain": 1, "kernel": 5, "bf16_kernel": 5, "bf16_plain": 1, "library": 5})
+    flop = stack_flop(TRAIN_B, 100, [3, 128], 128)
+    reads, writes = [c0, *up, *(p.w for p in ps), *res.cs, *res.gs], dg + rest
+    print(f"lstm_seq_states_bwd alone at the 10 s encoder's shape (ms, B={TRAIN_B}, T=100, L=2, f32 residuals, "
+          f"CUDA events, in turns; library: cuDNN nn.LSTM's backward data in f32; {smi}): {json.dumps(ms)}",
+          flush=True)
+    for name, key, peak in (("lstm_seq_states_bwd 10s", "kernel", TF32X3_FLOPS),
+                            ("lstm_seq_states_bwd_bf16 10s", "bf16_kernel", BF16_FLOPS)):
+        b_ms, b_by = bound(flop, reads, writes, peak)
+        report_redesign(name, smi, {"ms": ms[key], "library_ms": ms["library"] if key == "kernel" else None,
+                                    "bound_ms": b_ms, "bound_by": b_by}, fma_bound=bound(flop, reads, writes)[0],
+                        no_library="none (cuDNN's bf16 LSTM rounds h and c too: another function)")
 
 
 def time_dw_pack(dev, smi):
@@ -2255,8 +2337,8 @@ def report_lstm_mma(builds):
     """The LSTM kernels on the tensor cores (lstm_mma.cuh): the bf16 peer
     context, encoder and serve kernel (rows 1b, 4b; encoder and server on
     bf16 mma.sync), the bf16 cell (row 2b, cell_step), and the f32 peer
-    context and serve kernel (rows 1 and 3; encoder and server on three-pass
-    TF32): their registers, spills and shared memory (ptxas; the dynamic
+    context, encoder and serve kernel (rows 1, 3 and 4; encoder and server
+    on three-pass TF32): their registers, spills and shared memory (ptxas; the dynamic
     shared memory of the serving shapes' blocks, from ops.fused_lstm's
     choosers) and the count of HMMA instructions in their SASS; fails if one
     has none: their products run on mma.sync."""
@@ -2267,8 +2349,7 @@ def report_lstm_mma(builds):
         if "Function :" in ln:
             bf16 = "nv_bfloat16" in ln
             fn = next((k for k in ("peer_context_kernel", "fused_encode_kernel", "lstm_cell_kernel",
-                                   "fused_serve_kernel") if k in ln and (bf16 or k in ("peer_context_kernel",
-                                                                                       "fused_serve_kernel"))), None)
+                                   "fused_serve_kernel") if k in ln and (bf16 or k != "lstm_cell_kernel")), None)
             if fn == "fused_serve_kernel":
                 fn += "<true>" if "ILb1E" in ln else "<false>"
             if fn:
@@ -2278,7 +2359,8 @@ def report_lstm_mma(builds):
             hmma[fn] += 1
     blocks = {"peer_context_kernel<bf16>": fused_lstm.peer_tc_rows(128, 7, 3),
               "fused_encode_kernel<bf16>": fused_lstm.encode_tc_rows(128, 1, 3),
-              "peer_context_kernel<f32>": fused_lstm.peer_tf32_rows(128, 7, 3)}
+              "peer_context_kernel<f32>": fused_lstm.peer_tf32_rows(128, 7, 3),
+              "fused_encode_kernel<f32>": fused_lstm.encode_tf32_rows(128, 1, 3)}
     for name, geo in blocks.items():
         tier = "nv_bfloat16" if name.endswith("<bf16>") else "IfE"
         print(f"{name}: {hmma.get(name, 0)} HMMA instructions in its SASS; "
@@ -2311,16 +2393,23 @@ def report_lstm_mma(builds):
     geo = fused_lstm.peer_tf32_rows(128, 7, 3)
     if lib.peer_context_smem_bytes(geo.rp, 63, 3, 128, 0, 1, 0) != geo.smem:
         raise AssertionError("the f32 peer context's block: the library and the chooser disagree on its shared memory")
-    if len(hmma) != 8 or not all(hmma.values()):
+    for bf16, choose in ((0, fused_lstm.encode_tf32_rows), (1, fused_lstm.encode_tc_rows)):
+        for hidden, layers in ((128, 1), (64, 1), (128, 2)):
+            g = choose(hidden, layers, 3)
+            if lib.fused_encode_smem_bytes(g.rp, 3, hidden, layers, int(g.w_res), int(g.c_smem), bf16) != g.smem:
+                raise AssertionError(f"the encoder's block at H={hidden}, L={layers}: the library and the chooser "
+                                     f"disagree on its shared memory")
+    if len(hmma) != 9 or not all(hmma.values()):
         raise AssertionError(f"an LSTM kernel on the tensor cores has no HMMA instruction, its products off them: "
                              f"{hmma}")
 
 
 def report_train_mma(builds):
-    """The 10 s training recurrences on the tensor cores: every instance of
-    the decoder backward (ss_bwd_kernel<RT, STEP_CTX, P, STAGES>:
-    lstm_ss.cu's static context, lstm_align.cu's per-step one; the W ring 4
-    k-pairs deep, or 2 for deeper stacks) and of the lockstep peer forward
+    """The training recurrences on the tensor cores: every instance of the
+    backward (ss_bwd_kernel<RT, MODE, P, STAGES>: lstm_ss.cu's static
+    context, lstm_align.cu's per-step one, lstm_train.cu's teacher-forced
+    mode, row 5's; the W ring 4 k-pairs deep, or 2 for deeper stacks) and
+    of the lockstep peer forward
     (align_peer_fwd_kernel<RT, P, MT>, lstm_mma.cuh's encoder): registers,
     spills and shared memory (ptxas; the dynamic shared memory of the
     training shapes' blocks, from the choosers, which must equal the
@@ -2328,7 +2417,7 @@ def report_train_mma(builds):
     if one has none: their products run on mma.sync in both compute tiers."""
     hmma = {}
     for source, kernel in (("lstm_ss", "ss_bwd_kernel"), ("lstm_align", "ss_bwd_kernel"),
-                           ("lstm_align", "align_peer_fwd_kernel")):
+                           ("lstm_align", "align_peer_fwd_kernel"), ("lstm_train", "ss_bwd_kernel")):
         sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
                                str(builds[source].path)], capture_output=True, text=True, check=True).stdout
         fn = None
@@ -2345,7 +2434,8 @@ def report_train_mma(builds):
         if "align_peer_fwd" in sym:
             name, extra = "align_peer_fwd_kernel", ", MT 1" if "Li1E" in sym else ""
         else:
-            name = f"ss_bwd_kernel<{'step' if 'Lb1E' in sym else 'static'} ctx>"
+            mode = sym.split("ss_bwd_kernelI")[1].split("EN8lstm_mma")[0][-1]  # the MODE argument, Li<m>E
+            name = f"ss_bwd_kernel<{({'0': 'static ctx', '1': 'step ctx', '2': 'teacher-forced'})[mode]}>"
             extra = f", ring {4 if 'Li4EE' in sym else 2}"
         print(f"{source}: {name}<RT {rt}, {tier}{extra}>: {n} HMMA instructions in "
               f"its SASS; {json.dumps(ptxas_resources(source, (sym,)))}", flush=True)
@@ -2363,10 +2453,17 @@ def report_train_mma(builds):
                                       int(cd == BF)) != g.smem:
             raise AssertionError("the peer forward's block: the library and peer_fwd_block disagree")
         blocks[f"peer_fwd K=7 {str(cd)[6:]}"] = [g.rp, g.warps, g.w_res, g.smem]
-    print(f"the training recurrences' blocks at the training shapes (ss_bwd: rows, warps, ring stages, "
-          f"bytes of dynamic shared memory; peer_fwd: rows, warps, W resident, bytes): {json.dumps(blocks)}",
+        for name, (layers, d) in (("seq2seq-tf-30", (1, 3)), ("crossuser encoder", (2, 3)),
+                                  ("video-fusion teacher-forced decoder", (2, 67))):
+            g = lstm_train.bwd_block(128, layers, d, cd)
+            narrow, wide = lstm_train.bwd_split(d)
+            if lstm_train._library().lstm_bwd_smem(128, layers, narrow, wide, int(cd == BF)) != g.smem:
+                raise AssertionError(f"row 5's backward block at {name}: the library and bwd_block disagree")
+            blocks[f"lstm_bwd {name} {str(cd)[6:]}"] = [g.rows, g.warps, g.stages, g.smem]
+    print(f"the training recurrences' blocks at the training shapes (ss_bwd and lstm_bwd: rows, warps, ring "
+          f"stages, bytes of dynamic shared memory; peer_fwd: rows, warps, W resident, bytes): {json.dumps(blocks)}",
           flush=True)
-    if len(hmma) != 22 or not all(hmma.values()):
+    if len(hmma) != 30 or not all(hmma.values()):
         raise AssertionError(f"a training recurrence instance has no HMMA instruction, its products off the tensor "
                              f"cores: {hmma}")
 
@@ -2492,13 +2589,15 @@ def time_encode_kernel(dev, rows, smi, with_library, cd=F32):
     ms = in_turns(fns, {"plain": 2, "kernel": 5, "library": 5, "f32_kernel": 5})
     name = "fused_encode" + ("_bf16" if cd == BF else "")
     flop, reads = stack_flop(rows, 30, [3], 128), [xs] + tier_reads(ps[0], cd)
-    record(name, ms, flop, reads, [out], F32_FLOPS if cd == F32 else BF16_FLOPS)
+    record(name, ms, flop, reads, [out], TF32X3_FLOPS if cd == F32 else BF16_FLOPS)
     print(f"{name} alone ({rows} rows, L=1, T=30; ms, CUDA events, library cuDNN nn.LSTM, {smi}): "
           f"{json.dumps(ms)}; bound {TIMES[name]['bound_ms']:.3f} ms by {TIMES[name]['bound_by']}; vs plain "
           f"{json.dumps(err)}{note}", flush=True)
-    if cd == BF:  # row 4b on the tensor cores (lstm_mma.cuh)
-        report_redesign(name, smi, fma_bound=bound(flop, reads, [out])[0],
-                        extra=f"; its f32 twin {ms['f32_kernel']:.4f} ms")
+    # rows 4 (three-pass TF32) and 4b (bf16) on the tensor cores (lstm_mma.cuh's encoder)
+    report_redesign(name, smi, before=name if with_library or cd == BF else f"{name} {rows} rows",
+                    fma_bound=bound(flop, reads, [out])[0],
+                    extra=f"; its f32 twin {ms['f32_kernel']:.4f} ms" if cd == BF else f" ({rows} rows)",
+                    no_library="cuDNN not run at this size (its workspace grows with rows x steps)")
 
 
 def check_grouped(cfg, dev, params, rows, n_videos):
@@ -4036,7 +4135,7 @@ def ptxas_report(log):
 KERNEL_SYMBOLS = ("lstm_dw_pack_kernel", "fused_serve_kernel", "fused_decode_kernel", "lstm_cell_kernel", "peer_context_kernel",
                   "fused_encode_kernel", "encode_tokens_kernel", "ar_decode_kernel", "encode_stash_kernel",
                   "encode_reverse_kernel", "reduce_partials_kernel", "conv_resize_kernel", "lstm_dw_sum_kernel",
-                  "lstm_dw_partial_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel", "ss_fwd_kernel", "ss_bwd_kernel",
+                  "lstm_dw_partial_kernel", "lstm_fwd_kernel", "ss_fwd_kernel", "ss_bwd_kernel",
                   "ss_dw_partial_kernel", "ss_dproj_kernel", "align_peer_fwd_kernel", "align_peer_bwd_kernel",
                   "align_dw_partial_kernel", "align_peer_dw_kernel")
 
@@ -4325,6 +4424,7 @@ def main():
     del step, c10trained
     torch.cuda.empty_cache()
     time_aligned_kernels(dev, smi)
+    time_lstm_bwd_10s(dev, smi)
     report_dw(smi)
     torch.cuda.empty_cache()
     # the bf16 compute type: peers, decoder and (f32 residuals) the encoder
@@ -4425,6 +4525,7 @@ def main():
         time_grouped(t10cfg, dev, t10params, batch, 8, smi, TF10_GROUPED, profile=batch == 4096)
     time_shared_tier(dev, t10params, t10cfg, 4096, 8, smi)
     time_decode_per_row(dev, t10params, t10cfg, 4096, smi)
+    time_decode_per_row(dev, t10params, t10cfg, 4096, smi, window=t10cfg.model.peer_window)  # f32 per row
     time_decode_per_row(dev, t10params, t10cfg, 4096, smi, window=t10cfg.model.peer_window, tier=BF)
     time_decode_per_row(dev, t10params, t10cfg, 16384, smi, window=t10cfg.model.peer_window, tier=BF, twin=False)
     torch.cuda.empty_cache()

@@ -44,21 +44,26 @@
 //     2.1 TFLOP per serve call at B = 262144, D = 3, H = 128, 30 + 30 steps,
 //     L = 1. In exact f32 on the FMA units (67 TFLOP/s) that is 31.6 ms;
 //     the static context adds C k-rows to the decoder's layer 0 (C = 128:
-//     1.5x the decoder's layer-0 work).
+//     1.5x the decoder's layer-0 work). The encode kernel at the crossuser
+//     peer rows (262,144 = 65,536 viewers x 4 peers, T = 30, L = 1) is 1.06
+//     TFLOP: 15.7 ms on the FMA units, 6.4 ms in three-pass TF32.
 //   * Weight traffic. One layer's W is (3 + 128) x 512 x 4 = 268 KB in f32,
 //     more than the 227 KB of shared memory a block can have, so W is read
 //     from L2 every layer-step.
 //   * The cell's exact f32 sigmoids and tanhs, and the recurrence: the
 //     steps are serial inside a block.
-// What the design does about it: the serve kernel and the peer context run
-// on the tensor cores in both tiers (lstm_mma.cuh's server and encoder):
-// the bf16 tier on bf16 mma.sync, the f32 tier in three-pass TF32, which
-// keeps 22 bits an operand and sums in f32, at 495 / 3 TFLOP/s instead of
-// the FMA units' 67. A warp tile holds all four gates of its (row, unit)
+// What the design does about it: the serve kernel, the peer context and the
+// encode kernel run on the tensor cores in both tiers (lstm_mma.cuh's server
+// and encoder): the bf16 tier on bf16 mma.sync, the f32 tier in three-pass
+// TF32, which keeps 22 bits an operand and sums in f32, at 495 / 3 TFLOP/s
+// instead of the FMA units' 67. A warp tile holds all four gates of its (row, unit)
 // pairs, so the cell runs on the accumulators in registers; c stays in the
 // lanes' slots through both phases; z, a block row of [x or y | ctx | h of
 // every layer], is the products' A in shared memory. fused_encode_kernel
-// <float> and lstm_cell_kernel<float> stay on the FMA units (below):
+// <float> is the f32 peer context's body without the context: 64-row blocks
+// of 16 warps (ops/fused_lstm.py encode_tf32_rows), W packed once a call and
+// streamed from L2, the unrounded top-layer h written from z at the end.
+// lstm_cell_kernel<float> stays on the FMA units (below):
 //   * Each thread owns TR = 8 rows x TJ = 4 hidden units and computes all four
 //     gates of them: 128 accumulators in registers. Per k it loads one float4
 //     of W per gate (16-byte coalesced loads; each W element is reused for 8
@@ -201,41 +206,6 @@ __device__ __forceinline__ void lstm_layer_step(
       h[(j0 + j) * R + r0 + r] = o_g * tanhf(c_new);
     }
   __syncthreads();  // the new h is visible to the next layer and step
-}
-
-// x[d][r] = past[row0 + r, t, d] for the block's rows; 0 past the batch end.
-__device__ __forceinline__ void load_step(float* x,
-                                          const float* __restrict__ past,
-                                          long long row0, int B, int T_in,
-                                          int t, int D, int R, int tid,
-                                          int nthr) {
-  for (int i = tid; i < R * D; i += nthr) {
-    const int r = i / D, d = i % D;
-    const long long row = row0 + r;
-    x[d * R + r] = row < B ? past[(row * T_in + t) * D + d] : 0.0f;
-  }
-}
-
-// The L-layer encoder over T steps of xs (B, T, D) from zero state, for the
-// block's R rows: h_s and c_s (L x H * R floats each) end holding the final
-// states, x_s (D, R) the last step's input.
-__device__ __forceinline__ void encode(const float* __restrict__ xs,
-                                       const float* const* w,
-                                       const float* const* b, float* h_s,
-                                       float* c_s, float* x_s, long long row0,
-                                       int B, int T, int D, int H, int L,
-                                       int R, int r0, int j0, int tid,
-                                       int nthr) {
-  const int HR = H * R;
-  for (int i = tid; i < 2 * L * HR; i += nthr) h_s[i] = 0.0f;  // h_s, c_s
-  for (int t = 0; t < T; ++t) {
-    load_step(x_s, xs, row0, B, T, t, D, R, tid, nthr);
-    __syncthreads();
-    for (int l = 0; l < L; ++l)
-      lstm_layer_step(l == 0 ? x_s : h_s + (l - 1) * HR, l == 0 ? D : H,
-                      h_s + l * HR, c_s + l * HR, w[l], b[l], H, R, r0, j0,
-                      tid, nthr);
-  }
 }
 
 // src (B, H) row-major → dst (H, R) k-major for the block's rows; 0 past
@@ -386,45 +356,26 @@ __global__ void __launch_bounds__(512)
   }
 }
 
-// The bf16 tier is lstm_mma.cuh's encoder (every layer's W packed in
-// wts.w_enc[0], one array; the block's shape in geo); the f32 tier's body
-// follows.
+// Both tiers are lstm_mma.cuh's encoder (every layer's W packed in
+// wts.w_enc[0], one array; the block's shape in geo): the f32 tier on
+// three-pass TF32 in 32 x 8 tiles of up to 16 warps, W streamed, returning
+// the unrounded f32 top-layer h; the bf16 tier on bf16 mma in 32- or 16-row
+// tiles, returning the rounded h.
 template <typename CT>
-__global__ void __launch_bounds__(std::is_same<CT, float>::value ? 256 : 512)
-    fused_encode_kernel(const float* __restrict__ xs, float* __restrict__ out,
-                        const Weights<CT> wts, int B, int T, int D, int H, int L,
-                        int R, const lstm_mma::Geom geo) {
-  if constexpr (!std::is_same<CT, float>::value) {
-    const uint4* w = reinterpret_cast<const uint4*>(wts.w_enc[0]);
-    const long long p0 = (long long)blockIdx.x * geo.rp;
-    if (geo.mt == 2)
-      lstm_mma::encoder<lstm_mma::Bf16Mma, 2, false>(xs, nullptr, out, w, wts.b_enc, p0, B, geo.rp, T, D, H, L, 1,
-                                                     1, B, geo);
-    else
-      lstm_mma::encoder<lstm_mma::Bf16Mma, 1, false>(xs, nullptr, out, w, wts.b_enc, p0, B, geo.rp, T, D, H, L, 1,
-                                                     1, B, geo);
+__global__ void __launch_bounds__(512)
+    fused_encode_kernel(const float* __restrict__ xs, float* __restrict__ out, const Weights<CT> wts, int B, int T,
+                        int D, int H, int L, const lstm_mma::Geom geo) {
+  const uint4* w = reinterpret_cast<const uint4*>(wts.w_enc[0]);
+  const long long p0 = (long long)blockIdx.x * geo.rp;
+  if constexpr (std::is_same<CT, float>::value) {
+    lstm_mma::encoder<lstm_mma::Tf32Mma, 2, false>(xs, nullptr, out, w, wts.b_enc, p0, B, geo.rp, T, D, H, L, 1, 1,
+                                                   B, geo);
   } else {
-    extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    const int tid = threadIdx.x, nthr = blockDim.x;
-    const int j0 = (tid % (H / TJ)) * TJ;
-    const int r0 = (tid / (H / TJ)) * TR;
-    const int HR = H * R;
-    float* h_s = smem;          // L x (H, R)
-    float* c_s = h_s + L * HR;  // L x (TR * TJ, nthr)
-    float* x_s = c_s + L * HR;  // (D, R)
-    const long long row0 = (long long)blockIdx.x * R;
-
-    encode(xs, wts.w_enc, wts.b_enc, h_s, c_s, x_s, row0, B, T, D, H, L, R, r0,
-           j0, tid, nthr);
-    // the final top-layer h, row-major: neighbouring threads write
-    // neighbouring units of a row
-    const float* h_top = h_s + (L - 1) * HR;
-    for (int i = tid; i < R * H; i += nthr) {
-      const int r = i / H, k = i % H;
-      const long long row = row0 + r;
-      if (row < B) out[row * H + k] = h_top[k * R + r];
-    }
+    using P = lstm_mma::Bf16Mma;
+    if (geo.mt == 2)
+      lstm_mma::encoder<P, 2, false>(xs, nullptr, out, w, wts.b_enc, p0, B, geo.rp, T, D, H, L, 1, 1, B, geo);
+    else
+      lstm_mma::encoder<P, 1, false>(xs, nullptr, out, w, wts.b_enc, p0, B, geo.rp, T, D, H, L, 1, 1, B, geo);
   }
 }
 
@@ -528,13 +479,34 @@ static int launch_serve(const void* past, const void* ctx, void* out, const Weig
 #undef SERVE
 }
 
+// xs (batch, t_len, d) → out (batch, hidden). w[0] holds every layer's W
+// packed in one array (ops/fused_lstm.py pack_weights_tf32 in f32,
+// pack_weights in bf16), b `layers` pointers; `rows` = rp rows a block in
+// tiles of 16·mt, `warps` warps, W resident (w_res, bf16 only) or streamed, c
+// in shared memory or in c_glob (grid x layers x rp x hidden floats;
+// lstm_mma.cuh).
+template <typename CT>
+static int launch_encode(const void* xs, void* out, const void* const* w, const void* const* b, int batch, int t_len,
+                         int d, int hidden, int layers, int rows, int mt, int warps, int w_res, void* c_glob,
+                         void* stream) {
+  using P = std::conditional_t<std::is_same<CT, float>::value, lstm_mma::Tf32Mma, lstm_mma::Bf16Mma>;
+  const long long smem =
+      batch < 1 || t_len < 1 ? -1 : mma_smem<P>(false, rows, rows, d, hidden, layers, mt, warps, w_res, c_glob);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  Weights<CT> wts = weights<CT>(nullptr, b, nullptr, nullptr, nullptr, nullptr, layers);
+  wts.w_enc[0] = static_cast<const CT*>(w[0]);
+  return launch(fused_encode_kernel<CT>, (batch + rows - 1) / rows, 32 * warps, (size_t)smem, stream,
+                static_cast<const float*>(xs), static_cast<float*>(out), wts, batch, t_len, d, hidden, layers,
+                lstm_mma::Geom{rows, mt, w_res, static_cast<float*>(c_glob)});
+}
+
 extern "C" {
 
 // Each function launches its kernel on `stream` and returns
 // cudaGetLastError() (0 = ok). The pointer arrays hold `layers` device
-// pointers each; `rows` is the batch rows per block (for the FMA bodies of
-// the f32 encoder and cell a multiple of TR, so the block has (rows / TR) *
-// (hidden / TJ) threads). With `bf16` set, the weight matrices (W, proj_w)
+// pointers each; `rows` is the batch rows per block (for the FMA body of
+// the f32 cell a multiple of TR, so the block has (rows / TR) * (hidden / TJ)
+// threads). With `bf16` set, the weight matrices (W, proj_w)
 // are bf16 and the products run in the bf16 compute tier; biases,
 // activations and outputs are f32 in both tiers.
 
@@ -620,34 +592,20 @@ int peer_context_launch(const void* pxs, const void* pwt, void* ctx,
 #undef PEER
 }
 
-// xs (batch, t_len, d) → out (batch, hidden). f32: w and b `layers` pointers
-// each, `rows` rows a block (a multiple of 8), (2 * layers * hidden + d) *
-// rows floats of dynamic shared memory. bf16: w[0] every layer's W packed in
-// one array (ops/fused_lstm.py pack_weights), `rows` = rp rows a block in
-// tiles of 16·mt, `warps` warps, W resident (w_res) or streamed, c in shared
-// memory or in c_glob (grid x layers x rp x hidden floats; lstm_mma.cuh).
+// The encoder (launch_encode above) in bf16 (`bf16`) or f32.
 int fused_encode_launch(const void* xs, void* out, const void* const* w,
                         const void* const* b, int batch, int t_len, int d,
                         int hidden, int layers, int rows, int bf16, int mt,
                         int warps, int w_res, void* c_glob, void* stream) {
-  if (bf16) {
-    const long long smem = batch < 1 || t_len < 1 ? -1
-                           : mma_smem<lstm_mma::Bf16Mma>(false, rows, rows, d, hidden, layers, mt, warps, w_res,
-                                                         c_glob);
-    if (smem < 0) return (int)cudaErrorInvalidValue;
-    const int grid = (batch + rows - 1) / rows;
-    Weights<__nv_bfloat16> wts = weights<__nv_bfloat16>(nullptr, b, nullptr, nullptr, nullptr, nullptr, layers);
-    wts.w_enc[0] = static_cast<const __nv_bfloat16*>(w[0]);
-    return launch(fused_encode_kernel<__nv_bfloat16>, grid, 32 * warps, (size_t)smem, stream,
-                  static_cast<const float*>(xs), static_cast<float*>(out), wts, batch, t_len, d, hidden, layers,
-                  rows, lstm_mma::Geom{rows, mt, w_res, static_cast<float*>(c_glob)});
-  }
-  if (bad_shape(batch, t_len, d, hidden, layers, rows)) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)2 * layers * hidden + d) * rows * sizeof(float);
-  return launch(fused_encode_kernel<float>, (batch + rows - 1) / rows, (rows / TR) * (hidden / TJ), smem, stream,
-                static_cast<const float*>(xs), static_cast<float*>(out),
-                weights<float>(w, b, nullptr, nullptr, nullptr, nullptr, layers), batch, t_len, d, hidden,
-                layers, rows, lstm_mma::Geom{});
+  const auto go = bf16 ? &launch_encode<__nv_bfloat16> : &launch_encode<float>;
+  return go(xs, out, w, b, batch, t_len, d, hidden, layers, rows, mt, warps, w_res, c_glob, stream);
+}
+
+// The dynamic shared memory of an encoder block at the given shape
+// (lstm_mma::smem_bytes of the tier), bytes
+long long fused_encode_smem_bytes(int rp, int d, int hidden, int layers, int w_res, int c_smem, int bf16) {
+  return bf16 ? lstm_mma::smem_bytes<lstm_mma::Bf16Mma>(false, rp, rp, d, hidden, layers, w_res, c_smem)
+              : lstm_mma::smem_bytes<lstm_mma::Tf32Mma>(false, rp, rp, d, hidden, layers, w_res, c_smem);
 }
 
 // The decoder alone, in f32: h0, c0 (layers, batch, hidden), y0 (batch, d),

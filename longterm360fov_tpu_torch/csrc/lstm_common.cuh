@@ -7,15 +7,17 @@
 //     activation (h, x, dgates, dy) is kept in f32 and rounded where it
 //     enters a product. Carries, gates, the cell update, residual stores and
 //     the sums db, dproj_b stay f32;
-//   * the thread tile of the forwards and lstm_train.cu's backward: TR = 4
-//     batch rows x TJ = 4 hidden units per thread, a layer input held
-//     k-major (K, R) in shared memory, and accumulate<NG>, the FMA loop that
-//     reads W rows with 16-byte loads (the peer kernels of lstm_align.cu run
-//     on the tensor cores: the peer forward is lstm_mma.cuh's encoder, the
-//     peer backward has its own tiles);
+//   * the thread tile of the forwards: TR = 4 batch rows x TJ = 4 hidden
+//     units per thread, a layer input held k-major (K, R) in shared memory,
+//     and accumulate<NG>, the FMA loop that reads W rows with 16-byte loads
+//     (the peer kernels of lstm_align.cu run on the tensor cores: the peer
+//     forward is lstm_mma.cuh's encoder, the peer backward has its own
+//     tiles);
 //   * fwd_layer_step, one forward layer-step with its residual stores;
-//   * the scheduled-sampling decoder's backward recurrence on the tensor
-//     cores (ss_bwd_kernel, both compute tiers, lstm_mma.cuh's pieces);
+//   * the backward recurrence on the tensor cores (ss_bwd_kernel, both
+//     compute tiers, lstm_mma.cuh's pieces) in its three modes: the
+//     scheduled-sampling decoder's with a static or a per-step context
+//     (lstm_ss.cu, lstm_align.cu) and the teacher-forced LSTM's (lstm_train.cu);
 //   * the cp.async copies (16 and 4 bytes, groups) of the dW products and
 //     the peer backward;
 //   * the deterministic dW/db reduction: lstm_dw_pack_kernel writes each
@@ -215,86 +217,6 @@ __device__ __forceinline__ void fwd_layer_step(
 #pragma unroll
   for (int j = 0; j < TJ; ++j) st_rows(h, j0 + j, R, r0, hv, j);
   __syncthreads();  // the new h is visible to the next layer and step
-}
-
-// One backward layer-step's cell part for the thread's rows: dgates from the
-// residuals (gates, c_t, c_{t-1}; c0 at t = 0) and the gradients arriving at
-// this layer's h (`above` plus the carried dh) and c (the carried dc). Writes
-// dgates to device memory and k-major to dg_s, and carries dc = dc_total · f.
-template <typename RT>
-__device__ __forceinline__ void bwd_cell_step(
-    const RT* gs, const RT* cs, const float* __restrict__ c0, float* dgates,
-    const float (&above)[TR][TJ], float* dh_l, float* dc_l, float* dg_s,
-    long long row0, int B, int T, int t, int l, int H, int R, int r0, int j0,
-    int tid, int nthr) {
-  const int G = 4 * H;
-  float dgv[4][TR][TJ];
-#pragma unroll
-  for (int r = 0; r < TR; ++r) {
-    const long long row = row0 + r0 + r;
-    float gv[4][TJ], ct[TJ], cp[TJ];
-#pragma unroll
-    for (int j = 0; j < TJ; ++j) {
-      gv[0][j] = gv[1][j] = gv[2][j] = gv[3][j] = 0.0f;
-      ct[j] = cp[j] = 0.0f;
-    }
-    if (row < B) {
-      const size_t q = (size_t)row * T + t;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) Res<RT>::ld4(gs + q * G + g * H + j0, gv[g]);
-      Res<RT>::ld4(cs + q * H + j0, ct);
-      if (t > 0)
-        Res<RT>::ld4(cs + (q - 1) * H + j0, cp);
-      else
-        F::ld4(c0 + ((size_t)l * B + row) * H + j0, cp);
-    }
-#pragma unroll
-    for (int j = 0; j < TJ; ++j) {
-      const int idx = (r * TJ + j) * nthr + tid;
-      const float i_g = gv[0][j], f_g = gv[1][j], g_g = gv[2][j], o_g = gv[3][j];
-      const float dh_total = above[r][j] + dh_l[idx];
-      const float tanh_c = tanhf(ct[j]);
-      const float dc_total = dh_total * o_g * (1.0f - tanh_c * tanh_c) + dc_l[idx];
-      dgv[0][r][j] = dc_total * g_g * i_g * (1.0f - i_g);
-      dgv[1][r][j] = dc_total * cp[j] * f_g * (1.0f - f_g);
-      dgv[2][r][j] = dc_total * i_g * (1.0f - g_g * g_g);
-      dgv[3][r][j] = dh_total * tanh_c * o_g * (1.0f - o_g);
-      dc_l[idx] = dc_total * f_g;
-    }
-    if (row < B) {
-      const size_t q = (size_t)row * T + t;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) F::st4(dgates + q * G + g * H + j0, dgv[g][r]);
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-#pragma unroll
-    for (int j = 0; j < TJ; ++j) st_rows(dg_s, g * H + j0 + j, R, r0, dgv[g], j);
-}
-
-// The gradient of layer 0's first D input features at the block's rows below
-// B: dx[r][d] = sum_k dg_s[k][r] * W[d][k] over the G = 4H gate columns of
-// W's rows d < D, a thread per (row, d) with four partial sums; fn(r, d, dx)
-// takes each. W is in the compute type CT, dgates rounded to it.
-template <typename CT, typename Fn>
-__device__ __forceinline__ void input_grad(const float* dg_s,
-                                           const CT* __restrict__ W, int D,
-                                           int G, int R, long long row0, int B,
-                                           int tid, int nthr, Fn fn) {
-  for (int i = tid; i < R * D; i += nthr) {
-    const int r = i % R, d = i / R;
-    if (row0 + r >= B) continue;
-    const CT* wd = W + (size_t)d * G;
-    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-    for (int k = 0; k < G; k += 4) {
-      s0 = fmaf(cround<CT>(dg_s[k * R + r]), ldw1(wd + k), s0);
-      s1 = fmaf(cround<CT>(dg_s[(k + 1) * R + r]), ldw1(wd + k + 1), s1);
-      s2 = fmaf(cround<CT>(dg_s[(k + 2) * R + r]), ldw1(wd + k + 2), s2);
-      s3 = fmaf(cround<CT>(dg_s[(k + 3) * R + r]), ldw1(wd + k + 3), s3);
-    }
-    fn(r, d, (s0 + s1) + (s2 + s3));
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -856,8 +778,11 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// The backward recurrence on the tensor cores (ss_bwd_kernel), both compute
-// tiers: P = lstm_mma::Tf32Mma (f32 compute: three-pass TF32 on mma.sync
+// The backward recurrence on the tensor cores (ss_bwd_kernel) in three modes
+// (SsbMode, a template parameter): the scheduled-sampling decoder's with a
+// static context (lstm_ss.cu) or a per-step one (lstm_align.cu), and the
+// teacher-forced LSTM's (lstm_train.cu, described after the first two); both
+// compute tiers: P = lstm_mma::Tf32Mma (f32 compute: three-pass TF32 on mma.sync
 // m16n8k8, operands split by split_fast, sums in fresh chunk accumulators)
 // or lstm_mma::Bf16Mma (bf16 compute: mma.sync m16n8k16, bf16 operands, f32
 // sums). In reverse time, per layer from the top down: the cell backward
@@ -866,8 +791,16 @@ __global__ void __launch_bounds__(256)
 // then dgates · Wᵀ, whose columns are, for l > 0, [the carried dh (H) |
 // `above` of layer l - 1 (H)], and for layer 0 [the carried dh (H) | dctx
 // (C) | dx (D)]; from dx, with the coin at step t, dteacher_t and the
-// feedback into dy_{t-1}; at the end dy0, dh0 and dc0. STEP_CTX writes dctx
-// per step (the lockstep decoder), else sums it over t (lstm_ss.cu).
+// feedback into dy_{t-1}; at the end dy0, dh0 and dc0. SSB_STEP writes dctx
+// per step (the lockstep decoder), SSB_STATIC sums it over t (lstm_ss.cu).
+// SSB_TF, the teacher-forced LSTM (lstm_seq_states' backward, replacing the
+// Pallas _bwd_kernel of longterm360fov_tpu/ops/lstm_train.py): no feedback,
+// coin, projection or context; the top layer's `above` is the upstream
+// dhs_top[t], read in the accumulator layout; the carries start from dhT,
+// dcT; layer 0's input gradient dxs (B, T, D + C) is written every step, its
+// first D (<= 8) columns as dx above and the other C (whole n8 tiles, at
+// most H: a static context joined to every step's input) as the per-step
+// dctx tiles are; at the end dh0, dc0.
 //
 // What bounds it on the card (stacked-ss-crossuser-10s: B = 4096, T = 100,
 // L = 2, H = C = 128, D = 3): the products, 2·B·T·4H·(2H + H + C + 8) =
@@ -914,8 +847,9 @@ __global__ void __launch_bounds__(256)
 //     at the cell.
 // The probe build (-DSSB_PROBE): thread 0 of every block adds the clock64
 // ticks of each part to g_ssb_probe; ss_bwd_probe_read copies them out.
+enum SsbMode { SSB_STATIC = 0, SSB_STEP = 1, SSB_TF = 2 };
 enum SsbPart {
-  SB_LOADS,     // the residuals' loads (where they are not ahead) and `above` from dy at the top layer
+  SB_LOADS,     // the residuals' loads (where they are not ahead) and `above` (from dy or dhs_top) at the top layer
   SB_CELL,      // the cell backward, the dgates stores (device and shared memory)
   SB_BARRIERS,  // block barriers
   SB_PRODUCTS,  // dgates · Wᵀ
@@ -939,6 +873,11 @@ struct SsBwdArgs {
   const void* gs[MAX_LAYERS];   // (B, T, 4H)
   float* dg[MAX_LAYERS];        // (B, T, 4H) dgates out
   const void* proj_w;           // (H, D) in the compute type
+  // SSB_TF only
+  const float* dhs_top;  // (B, T, H) the upstream gradient of the top layer's h
+  const float* dhT;      // (L, B, H) the carries' start
+  const float* dcT;
+  float* dxs;            // (B, T, D + C) layer 0's input gradient
 };
 
 // The block's dynamic shared memory: an A buffer of 32 rows x (4H + a
@@ -1136,7 +1075,7 @@ __device__ __forceinline__ void ssb_product(float (&acc)[NT][2][4], const typena
   }
 }
 
-template <typename RT, bool STEP_CTX, typename P, int STAGES>
+template <typename RT, int MODE, typename P, int STAGES>
 __global__ void __launch_bounds__(512)
     ss_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ c0, const float* __restrict__ coins,
                   const SsBwdArgs a, float* __restrict__ dy, float* __restrict__ dteacher, float* __restrict__ dy0,
@@ -1144,6 +1083,7 @@ __global__ void __launch_bounds__(512)
                   int C, int H, int L) {
   using E = typename P::E;
   using CT = std::conditional_t<std::is_same<P, lstm_mma::Tf32Mma>::value, float, __nv_bfloat16>;
+  constexpr bool STEP_CTX = MODE != SSB_STATIC, TF = MODE == SSB_TF;
   using RP = ResPair<RT>;
   using Raw = typename RP::Raw;
   // the next layer-step's residuals in registers during the bf16 tier's
@@ -1174,11 +1114,33 @@ __global__ void __launch_bounds__(512)
 
   // the lane's rows: 16·mt + 8·hh + g
   auto grow = [&](int mt, int hh) { return row0 + 16 * mt + 8 * hh + g8; };
-  for (int i = tid; i < 2 * L * nw * 64; i += blockDim.x) dhs[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  // the lane's pairs of f32 rows (row stride ld) of the block, rows g and
+  // g + 8 of m-tile mt, as a float4 in the accumulator layout (zeros past
+  // the batch)
+  auto pairs = [&](const float* src, size_t ld, int mt) {
+    float2 v[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long row = grow(mt, hh);
+      v[hh] = row < B ? *reinterpret_cast<const float2*>(src + (size_t)row * ld + u) : make_float2(0.0f, 0.0f);
+    }
+    return make_float4(v[0].x, v[0].y, v[1].x, v[1].y);
+  };
+  if constexpr (TF) {  // the carries from dhT, dcT into the lanes' own slots
+    for (int l = 0; l < L; ++l)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const size_t slot = ((size_t)(l * nw + w) * 2 + mt) * 32 + lane;
+        dhs[slot] = pairs(a.dhT + (size_t)l * B * H, H, mt);
+        dcs[slot] = pairs(a.dcT + (size_t)l * B * H, H, mt);
+      }
+  } else {
+    for (int i = tid; i < 2 * L * nw * 64; i += blockDim.x) dhs[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
   if (!STEP_CTX)
     for (int i = tid; i < CB * 64; i += blockDim.x) dsum[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   // dy_{T-1} = dys_{T-1}: the decoder's last output gets no feedback
-  for (int i = tid; i < SSB_ROWS * SSB_MAX_D; i += blockDim.x) {
+  for (int i = tid; i < (TF ? 0 : SSB_ROWS * SSB_MAX_D); i += blockDim.x) {
     const int r = i / SSB_MAX_D, d = i % SSB_MAX_D;
     const long long row = row0 + r;
     float v = 0.0f;
@@ -1220,7 +1182,7 @@ __global__ void __launch_bounds__(512)
   for (int t = T - 1; t >= 0; --t) {
     // the coin of step t and dys_{t-1} at the lane's first (row, d) of the feedback
     float fb_coin = 0.0f, fb_dys = 0.0f;
-    {
+    if constexpr (!TF) {
       const int d = lane % SSB_MAX_D;
       const long long row = row0 + w + nw * (lane / SSB_MAX_D);
       if (lane < (SSB_ROWS / nw) * SSB_MAX_D && d < D && row < B) {
@@ -1229,7 +1191,10 @@ __global__ void __launch_bounds__(512)
       }
     }
     for (int l = L - 1; l >= 0; --l) {
-      if (l == L - 1) {  // dy_t · proj_wᵀ from the f32 dy, rounded to CT as it enters the product
+      if (TF && l == L - 1) {  // the upstream dhs_top[t]
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) above[mt] = pairs(a.dhs_top + (size_t)t * H, (size_t)T * H, mt);
+      } else if (l == L - 1) {  // dy_t · proj_wᵀ from the f32 dy, rounded to CT as it enters the product
         const CT* pw = static_cast<const CT*>(a.proj_w);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
@@ -1319,11 +1284,21 @@ __global__ void __launch_bounds__(512)
         } else if (l > 0) {  // `above` of layer l - 1 at the same pairs
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) above[mt] = make_float4(v[mt][0], v[mt][1], v[mt][2], v[mt][3]);
-        } else {  // dctx of context columns 8·ct ..
+        } else {  // dctx of context columns 8·ct .. (TF: dxs' columns D + 8·ct ..)
           const int ct = id - NB;
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            if constexpr (STEP_CTX) {
+            if constexpr (TF) {  // rows of D + C floats: no pair is 8-byte aligned for every D
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                const long long row = grow(mt, hh);
+                if (row < B) {
+                  float* o = a.dxs + ((size_t)row * T + t) * (D + C) + D + 8 * ct + 2 * t4;
+                  o[0] = v[mt][2 * hh];
+                  o[1] = v[mt][2 * hh + 1];
+                }
+              }
+            } else if constexpr (STEP_CTX) {
 #pragma unroll
               for (int hh = 0; hh < 2; ++hh) {
                 const long long row = grow(mt, hh);
@@ -1339,15 +1314,20 @@ __global__ void __launch_bounds__(512)
         }
       };
       if (l == 0) {
-        // dx = the warps' partials summed in warp order; dteacher_t and the
-        // feedback into dy_{t-1} (dy0 at t = 0): lane i·8 + d of warp w takes
-        // row w + nw·i, coordinate d, its coin and dys_{t-1} loaded ahead
+        // dx = the warps' partials summed in warp order (TF: written to dxs);
+        // dteacher_t and the feedback into dy_{t-1} (dy0 at t = 0): lane
+        // i·8 + d of warp w takes row w + nw·i, coordinate d, its coin and
+        // dys_{t-1} loaded ahead
         for (int j = lane, first = 1; j < (SSB_ROWS / nw) * SSB_MAX_D; j += 32, first = 0) {
           const int d = j % SSB_MAX_D, r = w + nw * (j / SSB_MAX_D);
           const long long row = row0 + r;
           if (d >= D) continue;
           float dx = 0.0f;
           for (int v = 0; v < nw; ++v) dx += dxp[((size_t)v * SSB_ROWS + r) * SSB_MAX_D + d];
+          if constexpr (TF) {
+            if (row < B) a.dxs[((size_t)row * T + t) * (D + C) + d] = dx;
+            continue;
+          }
           float next = 0.0f;
           if (row < B) {
             const size_t q = (size_t)t * B + row;
@@ -1391,8 +1371,10 @@ __global__ void __launch_bounds__(512)
       __syncthreads();  // every warp has read the A buffer before the next cell writes it
       pr.mark(SB_BARRIERS);
     }
-    __syncthreads();  // dy_{t-1} of every row in dys_s
-    pr.mark(SB_BARRIERS);
+    if constexpr (!TF) {
+      __syncthreads();  // dy_{t-1} of every row in dys_s
+      pr.mark(SB_BARRIERS);
+    }
   }
 
   // dh0, dc0 from the slots; the static context's dctx from its sums
@@ -1515,32 +1497,29 @@ static int ss_fwd_launch(const void* h0, const void* c0, const void* y0,
 // layer's Wᵀ packed for the tier (ops/lstm_ss.py pack_bwd_weights; f32, or
 // bf16 when cbf16); w0x layer 0's W[:d] and proj_w in the tier's type;
 // ctx_dim a multiple of 8 up to hidden (the dctx n-tiles, one a warp), d <=
-// 8. dctx is (batch, ctx_dim) or, STEP_CTX, (batch, t_len, ctx_dim).
+// 8. dctx is (batch, ctx_dim) or, STEP_CTX, (batch, t_len, ctx_dim). The
+// teacher-forced mode takes the same shapes, with d the narrow and ctx_dim
+// the wide columns of layer 0's input.
 static inline bool ss_bwd_bad_shape(int batch, int t_len, int d, int ctx_dim, int hidden, int layers) {
   return layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden > 128 || hidden % 32 || batch < 1 ||
          t_len < 1 || d < 1 || d > SSB_MAX_D || ctx_dim < 0 || ctx_dim % 8 || ctx_dim > hidden ||
          (long long)batch * t_len >= (1LL << 31);
 }
 
-// ss_bwd_kernel's dynamic shared memory at its ring depth (ssb_stages)
+// ss_bwd_kernel's dynamic shared memory at its ring depth (ssb_stages); the
+// teacher-forced mode's is that of a per-step context (step_ctx)
 template <typename P>
 static inline long long ss_bwd_smem_bytes(int hidden, int layers, int ctx_dim, bool step_ctx) {
   return ssb_smem_bytes<P>(hidden, layers, ctx_dim, step_ctx, ssb_stages<P>(hidden, layers, ctx_dim, step_ctx));
 }
 
-template <bool STEP_CTX>
-static int ss_bwd_launch(const void* dys, const void* c0, const void* coins, const void* const* wt,
-                         const void* w0x, const void* proj_w, const void* const* cs, const void* const* gs, void* const* dg, void* dy,
-                         void* dteacher, void* dy0, void* dh0, void* dc0, void* dctx, int batch, int t_len, int d,
-                         int ctx_dim, int hidden, int layers, int bf16, int cbf16, void* stream) {
-  if (ss_bwd_bad_shape(batch, t_len, d, ctx_dim, hidden, layers)) return (int)cudaErrorInvalidValue;
-  const long long smem = cbf16 ? ss_bwd_smem_bytes<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, STEP_CTX)
-                               : ss_bwd_smem_bytes<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, STEP_CTX);
-  if (smem > lstm_mma::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  const bool deep = (cbf16 ? ssb_stages<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, STEP_CTX)
-                           : ssb_stages<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, STEP_CTX)) == 4;
+// The kernel's per-layer pointers, w0x and proj_w (null in the
+// teacher-forced mode) as its arguments; the mode's own pointers are set by
+// the caller.
+static inline SsBwdArgs ss_bwd_args(const void* const* wt, const void* w0x, const void* proj_w,
+                                    const void* const* cs, const void* const* gs, void* const* dg, int layers) {
   SsBwdArgs a = {};
-  for (int l = 0; l < layers; ++l) {
+  for (int l = 0; l < std::min(layers, MAX_LAYERS); ++l) {
     a.wt[l] = static_cast<const uint4*>(wt[l]);
     a.cs[l] = cs[l];
     a.gs[l] = gs[l];
@@ -1548,6 +1527,22 @@ static int ss_bwd_launch(const void* dys, const void* c0, const void* coins, con
   }
   a.w0x = w0x;
   a.proj_w = proj_w;
+  return a;
+}
+
+// Launch ss_bwd_kernel in the mode MODE (the scheduled-sampling pointers,
+// dys .. dy0 and dctx, null in SSB_TF).
+template <int MODE>
+static int ss_bwd_go(const SsBwdArgs& a, const void* dys, const void* c0, const void* coins, void* dy,
+                     void* dteacher, void* dy0, void* dh0, void* dc0, void* dctx, int batch, int t_len, int d,
+                     int ctx_dim, int hidden, int layers, int bf16, int cbf16, void* stream) {
+  constexpr bool STEP_CTX = MODE != SSB_STATIC;
+  if (ss_bwd_bad_shape(batch, t_len, d, ctx_dim, hidden, layers)) return (int)cudaErrorInvalidValue;
+  const long long smem = cbf16 ? ss_bwd_smem_bytes<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, STEP_CTX)
+                               : ss_bwd_smem_bytes<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, STEP_CTX);
+  if (smem > lstm_mma::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const bool deep = (cbf16 ? ssb_stages<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, STEP_CTX)
+                           : ssb_stages<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, STEP_CTX)) == 4;
   const int grid = (batch + SSB_ROWS - 1) / SSB_ROWS, threads = 32 * (hidden / 8);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float *f_dys = static_cast<const float*>(dys), *f_c0 = static_cast<const float*>(c0),
@@ -1555,7 +1550,7 @@ static int ss_bwd_launch(const void* dys, const void* c0, const void* coins, con
   float *o_dy = static_cast<float*>(dy), *o_dt = static_cast<float*>(dteacher), *o_dy0 = static_cast<float*>(dy0),
         *o_dh0 = static_cast<float*>(dh0), *o_dc0 = static_cast<float*>(dc0), *o_dctx = static_cast<float*>(dctx);
 #define SSB_AT(RT, P, S)                                                                                         \
-  launch_with_smem(ss_bwd_kernel<RT, STEP_CTX, P, S>, grid, threads, (size_t)smem, st, f_dys, f_c0, f_coins, a,   \
+  launch_with_smem(ss_bwd_kernel<RT, MODE, P, S>, grid, threads, (size_t)smem, st, f_dys, f_c0, f_coins, a,       \
                    o_dy, o_dt, o_dy0, o_dh0, o_dc0, o_dctx, batch, t_len, d, ctx_dim, hidden, layers)
 #define SSB(RT, P) (deep ? SSB_AT(RT, P, 4) : SSB_AT(RT, P, 2))
   using BF = __nv_bfloat16;
@@ -1565,6 +1560,18 @@ static int ss_bwd_launch(const void* dys, const void* c0, const void* coins, con
   return SSB(float, lstm_mma::Tf32Mma);
 #undef SSB
 #undef SSB_AT
+}
+
+// The scheduled-sampling decoder's backward: a static context, or STEP_CTX a
+// per-step one
+template <bool STEP_CTX>
+static int ss_bwd_launch(const void* dys, const void* c0, const void* coins, const void* const* wt,
+                         const void* w0x, const void* proj_w, const void* const* cs, const void* const* gs, void* const* dg, void* dy,
+                         void* dteacher, void* dy0, void* dh0, void* dc0, void* dctx, int batch, int t_len, int d,
+                         int ctx_dim, int hidden, int layers, int bf16, int cbf16, void* stream) {
+  return ss_bwd_go<STEP_CTX ? SSB_STEP : SSB_STATIC>(ss_bwd_args(wt, w0x, proj_w, cs, gs, dg, layers), dys, c0,
+                                                     coins, dy, dteacher, dy0, dh0, dc0, dctx, batch, t_len, d,
+                                                     ctx_dim, hidden, layers, bf16, cbf16, stream);
 }
 
 // dW/db of every decoder layer (the reduction above; layer 0's input rebuilt

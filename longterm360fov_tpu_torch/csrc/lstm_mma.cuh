@@ -1,14 +1,14 @@
 // The LSTM encoders and serve kernel on the tensor cores (sm_90a), in both
 // compute tiers: the layer step of peer_context_kernel and fused_encode_kernel
-// <__nv_bfloat16> (fused_serve.cu), an LSTM over many independent rows from
+// (fused_serve.cu), an LSTM over many independent rows from
 // zero state with no feedback (also the training tier's lockstep peer
 // forward, align_peer_fwd_kernel in lstm_align.cu, with its residual
 // stores), and the serve kernel (server below): per step t and layer l,
 //   gates = [in_t, h_l,t-1] @ W_l + b_l;  c = f * c + i * g;  h = o * tanh(c).
 // Each body is a template on its product (Bf16Mma or Tf32Mma below): the
 // bf16 tier's products on mma.sync m16n8k16 with bf16 operands, and the f32
-// tier's (peer_context_kernel<float>, fused_serve_kernel<*, float>) in
-// three-pass TF32 on mma.sync m16n8k8, which keeps 22 bits an operand.
+// tier's (peer_context_kernel<float>, fused_encode_kernel<float>,
+// fused_serve_kernel<*, float>) in three-pass TF32 on mma.sync m16n8k8, which keeps 22 bits an operand.
 //
 // What bounds it on Hopper (peer context at B = 4096, K = 7, T = 100,
 // C = 128: 28,672 rows; one step of a block of 64 rows):
@@ -71,7 +71,8 @@
 //     by row so the lanes' float2 stores fall on distinct banks; ctx_t[v] =
 //     Σ_k w_k · h_k (k = 0 .. K - 1 in order, each product and sum rounded
 //     to nearest, as the plain version computes them) is summed from it.
-//   * fused_encode writes the rounded top-layer h from z.
+//   * fused_encode writes the top-layer h from z: rounded in bf16, the f32 h
+//     in f32.
 // The three-pass TF32 product (product_tf32): an f32 operand x is split into
 // hi, x with its 13 low mantissa bits cleared, and lo = x - hi, which mma
 // reads as TF32 (split_fast: 21 bits kept); a · b is a_lo · b_hi +
@@ -428,8 +429,9 @@ __device__ __forceinline__ void cell(const float (&acc)[MT][UT][4][4], int r0, i
 // its products those of P (Bf16Mma or Tf32Mma).
 // PEER: the lockstep peer cells (L = 1, hidden H = C): rows = RV·K real rows
 // of peer rows p = p0 + r (p < nrows), and after every step ctx_t of the
-// block's viewers into out (B, T, C). Else (fused_encode, bf16): rows = rp
-// batch rows from p0 (p < nrows), and the rounded top-layer h into out (B, H).
+// block's viewers into out (B, T, C). Else (fused_encode): rows = rp batch
+// rows from p0 (p < nrows), and the top-layer h from z into out (B, H):
+// rounded in bf16, as it is in f32.
 // RT (PEER only; void: none): the training tier's residuals, every step's h
 // (from the staging) and c (from the lanes' slots) into php and pcp (nrows,
 // T, H) in RT, 16-byte pieces along whole rows, during the publish
@@ -610,7 +612,7 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
       pr.mark(LP_BARRIERS);
     }
   }
-  if constexpr (!PEER) {  // the rounded top-layer h, row-major
+  if constexpr (!PEER) {  // the top-layer h as z holds it (bf16: rounded), row-major
     const E* ztop = z + kx + (L - 1) * H;
     for (int i = tid; i < rp * H; i += nthr) {
       const int r = i / H, u = i % H;

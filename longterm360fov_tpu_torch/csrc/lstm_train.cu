@@ -7,13 +7,14 @@
 //   * lstm_fwd_kernel: the forward recurrence over T steps and L layers from
 //     (h0, c0). It saves per layer h, c (B, T, H) and the post-activation
 //     gates i, f, g, o (B, T, 4H) in the residual type. Carries stay f32.
-//   * lstm_bwd_kernel: the backward recurrence in reverse time. Per layer,
-//     top-down, it forms dgates = [di, df, dg, do] from the residuals and the
-//     carried (dh, dc), writes dgates (B, T, 4H) f32, and runs
-//     dz = dgates · Wᵀ: dz's h part is the next carried dh, its input part
-//     the gradient of the layer below (dxs for layer 0). It ends with dh0,
-//     dc0. The top layer's dh is the upstream dhs_top plus the carried dh;
-//     the carries start from dhT, dcT.
+//   * the backward recurrence in reverse time: lstm_common.cuh's
+//     ss_bwd_kernel in its teacher-forced mode (SSB_TF), on the tensor
+//     cores. Per layer, top-down, it forms dgates = [di, df, dg, do] from the
+//     residuals and the carried (dh, dc), writes dgates (B, T, 4H) f32, and
+//     runs dz = dgates · Wᵀ: dz's h part is the next carried dh, its input
+//     part the gradient of the layer below (dxs for layer 0). It ends with
+//     dh0, dc0. The top layer's dh is the upstream dhs_top plus the carried
+//     dh; the carries start from dhT, dcT.
 //   * lstm_dw_pack_kernel + lstm_dw_partial_kernel + lstm_dw_sum_kernel:
 //     dW_l = Σ_{b,t} zᵀ·dgates and db_l = Σ_{b,t} dgates with
 //     z = [input_t, h_{t-1}]: input_t is xs for layer 0 and o·tanh(c) of the
@@ -30,45 +31,55 @@
 // products [x, h]·W, dgates·Wᵀ, the dW sums zᵀ·dgates; db sums the unrounded
 // dgates, and carries, gates, residuals and dgates in device memory stay f32
 // or the residual type (lstm_common.cuh, cround). W is read as bf16 that the
-// wrapper rounded once per call, half the bytes from L2. The recurrences'
-// products still run on the FMA units (the operands widened to f32), so
-// they are no faster than f32; the dW sums run on the tensor cores.
-// Every tensor is read and written batch-major, (B, T, ·), as the caller
-// holds it: a row's H values are contiguous, so a warp's per-step stores of
-// one row are one coalesced 512-byte (f32) or 256-byte (bf16) segment. No
-// time-major copies.
+// wrapper rounded once per call, half the bytes from L2. The forward's
+// products still run on the FMA units (the operands widened to f32), so it
+// is no faster than f32; the backward and the dW sums run on the tensor
+// cores. Every tensor is read and written batch-major, (B, T, ·), as the
+// caller holds it: no time-major copies.
 //
-// What bounds it on the card, at seq2seq-tf-30's training shapes
+// What bounds them on the card, at seq2seq-tf-30's training shapes
 // (B = 4096, T = 30, D = 3, H = 128, L = 1):
 //   * Arithmetic. The forward is 2·B·T·(D+H)·4H = 16.5 GFLOP per pass, the
 //     backward recurrence 16.1 GFLOP (dgates·Wᵀ) and the dW reduction
-//     16.5 GFLOP, all exact f32 on the FMA units (67 TFLOP/s peak, so at
-//     least 0.25 ms each); the bf16 dW on the tensor cores (989 TFLOP/s
-//     dense) 0.017 ms.
+//     16.5 GFLOP. On the FMA units (67 TFLOP/s peak) that is at least
+//     0.25 ms each; the backward in three-pass TF32 (495 / 3 TFLOP/s) 0.10
+//     ms, in bf16 (989 TFLOP/s dense) 0.016 ms.
 //   * Bytes. The residuals are 6H words per row-step: 377 MB per pass in f32,
 //     189 MB in bf16, plus dgates (4H f32, 252 MB) written by the backward
 //     recurrence and read by the reduction. At 3.35 TB/s that is 0.06-0.19 ms
-//     per kernel, under the FMA time: the f32 kernels are bound by FMA
-//     throughput, as fused_serve is, and not by bytes; the bf16 dW by bytes.
-//   * W does not fit shared memory (131 x 512 x 4 = 268 KB > 227 KB); as in
-//     fused_serve.cu it is streamed from L2 with 16-byte loads every step.
-//   * Occupancy at the training batch. fused_serve's 64 rows per block give
-//     64 blocks at B = 4096: under half a wave on 132 SMs. Here a thread owns
-//     TR = 4 rows x TJ = 4 hidden units and a block 16 rows (the wrapper
-//     picks; 8 rows per thread spilled registers and ran slower): at
-//     B = 4096 that is 256 blocks of 128 threads, two resident per SM, one
-//     wave. The dW reduction tiles dW into 144 x 128 tiles and splits the
-//     B·T rows so that the full tiles alone give two blocks per SM.
+//     per kernel: the forward is bound by FMA throughput, the backward's
+//     tiers by bytes (0.14-0.19 ms) once on the tensor cores. At the
+//     crossuser 10 s encoder (B = 4096, T = 100, L = 2, f32 residuals) the
+//     backward reads 2.10 GB of gates and c and writes 1.68 GB of dgates:
+//     1.19 ms, against 164 GFLOP, 0.99 ms in three-pass TF32.
+//   * W does not fit shared memory beside a block's state (131 x 512 x 4 =
+//     268 KB > 227 KB); it is read from L2 every layer-step.
+//   * Occupancy at the training batch. The forward's thread owns TR = 4 rows
+//     x TJ = 4 hidden units and a block 16 rows (the wrapper picks; 8 rows
+//     per thread spilled registers and ran slower): at B = 4096 that is 256
+//     blocks of 128 threads, two resident per SM, one wave. The backward's
+//     32-row blocks of 16 warps give 128 blocks, one wave on 132 SMs. The dW
+//     reduction tiles dW into 144 x 128 tiles and splits the B·T rows so
+//     that the full tiles alone give two blocks per SM.
 // What the design does about it:
-//   * The recurrences keep every carry on chip: h of every layer k-major in
-//     shared memory (read as the second half of [x, h]), c and the backward's
-//     dh, dc in owner-private shared memory (a thread owns the same
-//     (row, unit) pairs in every step, so the cell math needs no exchange),
-//     and the current step's dgates k-major in shared memory for the
-//     dgates · Wᵀ product, which reads Wᵀ (prepared by the wrapper) with
-//     coalesced 16-byte loads. A k-major column of the thread's 4 rows is one
-//     16-byte shared load (a broadcast: a warp shares its rows) and one
-//     16-byte store.
+//   * The forward keeps every carry on chip: h of every layer k-major in
+//     shared memory (read as the second half of [x, h]) and c in
+//     owner-private shared memory (a thread owns the same (row, unit) pairs
+//     in every step, so the cell math needs no exchange). A k-major column
+//     of the thread's 4 rows is one 16-byte shared load (a broadcast: a warp
+//     shares its rows) and one 16-byte store.
+//   * The backward is the scheduled-sampling decoder's (lstm_common.cuh says
+//     how it runs): warp w holds units 8w .. 8w + 7 of the block's 32 rows in
+//     the cell, which runs in mma's accumulator layout, and in its n-tiles of
+//     the product; dgates go to device memory and, in the tier's type, to an
+//     A buffer in shared memory; Wᵀ, packed once a call in mma's B fragment
+//     order (ops/lstm_ss.py pack_bwd_weights), streams from L2 through each
+//     warp's cp.async ring. It runs without the feedback, the coin, the
+//     projection and the context: the top layer's upstream gradient is
+//     dhs_top[t], the carries start from dhT, dcT, and dxs is written every
+//     step, its first D (up to 8) columns from the warps' mma partials, the
+//     rest (the teacher-forced decoder's static context, D = 3 + C) from
+//     whole n8 tiles of layer 0's product.
 //   * The dW reduction reads each operand from device memory once, or
 //     nearly. A pack pass builds z once, h part first so that its wide parts
 //     are whole 16-byte runs, and writes it in the compute type (in bf16 a
@@ -82,7 +93,8 @@
 //     summed unrounded for db; in f32 16 rows by cp.async and a 9 x 8 FMA
 //     tile per thread. A pack is a bytes-bound pass; the products keep 128
 //     registers, two blocks per SM.
-// The device code these kernels share with lstm_ss.cu is in lstm_common.cuh.
+// The device code these kernels share with lstm_ss.cu and lstm_align.cu is
+// in lstm_common.cuh.
 
 #include "lstm_common.cuh"
 
@@ -134,118 +146,6 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// backward recurrence
-// ---------------------------------------------------------------------------
-
-template <typename CT>
-struct BwdArgs {
-  const CT* w[MAX_LAYERS];      // (in_l + H, 4H): layer 0's rows :D give dxs
-  const CT* wt[MAX_LAYERS];     // l == 0: W[D:]ᵀ (4H, H); l > 0:
-                                // [W[H:]; W[:H]]ᵀ (4H, 2H), dh part first
-  const void* cs[MAX_LAYERS];   // (B, T, H) residual type
-  const void* gs[MAX_LAYERS];   // (B, T, 4H)
-  float* dg[MAX_LAYERS];        // (B, T, 4H) dgates out
-};
-
-template <typename RT, typename CT>
-__global__ void __launch_bounds__(256)
-    lstm_bwd_kernel(const float* __restrict__ dhs_top,
-                    const float* __restrict__ dhT,
-                    const float* __restrict__ dcT,
-                    const float* __restrict__ c0, const BwdArgs<CT> a,
-                    float* __restrict__ dxs, float* __restrict__ dh0,
-                    float* __restrict__ dc0, int B, int T, int D, int H,
-                    int L, int R) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int j0 = (tid % (H / TJ)) * TJ;
-  const int r0 = (tid / (H / TJ)) * TR;
-  const int HR = H * R, G = 4 * H;
-  float* dg_s = smem;            // (4H, R) dgates of this layer-step
-  float* dh_s = dg_s + G * R;    // L x owner-private (TR * TJ, nthr)
-  float* dc_s = dh_s + L * HR;   // L x owner-private
-  const long long row0 = (long long)blockIdx.x * R;
-
-  for (int l = 0; l < L; ++l)
-#pragma unroll
-    for (int r = 0; r < TR; ++r) {
-      const long long row = row0 + r0 + r;
-      float vh[TJ] = {0.0f, 0.0f, 0.0f, 0.0f}, vc[TJ] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (row < B) {
-        F::ld4(dhT + ((size_t)l * B + row) * H + j0, vh);
-        F::ld4(dcT + ((size_t)l * B + row) * H + j0, vc);
-      }
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        dh_s[l * HR + (r * TJ + j) * nthr + tid] = vh[j];
-        dc_s[l * HR + (r * TJ + j) * nthr + tid] = vc[j];
-      }
-    }
-
-  for (int t = T - 1; t >= 0; --t) {
-    float above[TR][TJ];  // gradient arriving at this layer's h from above
-#pragma unroll
-    for (int r = 0; r < TR; ++r) {
-      const long long row = row0 + r0 + r;
-      float v[TJ] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (row < B) F::ld4(dhs_top + ((size_t)row * T + t) * H + j0, v);
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) above[r][j] = v[j];
-    }
-    for (int l = L - 1; l >= 0; --l) {
-      bwd_cell_step<RT>(static_cast<const RT*>(a.gs[l]),
-                        static_cast<const RT*>(a.cs[l]), c0, a.dg[l], above,
-                        dh_s + l * HR, dc_s + l * HR, dg_s, row0, B, T, t, l,
-                        H, R, r0, j0, tid, nthr);
-      __syncthreads();  // dgates of this layer-step complete in dg_s
-
-      if (l > 0) {
-        float acc[2][TR][TJ];
-        zero(acc);
-        accumulate<2>(acc, dg_s, G, a.wt[l], 2 * H, H, R, r0, j0);
-#pragma unroll
-        for (int r = 0; r < TR; ++r)
-#pragma unroll
-          for (int j = 0; j < TJ; ++j) {
-            dh_s[l * HR + (r * TJ + j) * nthr + tid] = acc[0][r][j];
-            above[r][j] = acc[1][r][j];
-          }
-      } else {
-        float acc[1][TR][TJ];
-        zero(acc);
-        accumulate<1>(acc, dg_s, G, a.wt[0], H, 0, R, r0, j0);
-#pragma unroll
-        for (int r = 0; r < TR; ++r)
-#pragma unroll
-          for (int j = 0; j < TJ; ++j)
-            dh_s[(r * TJ + j) * nthr + tid] = acc[0][r][j];
-        input_grad(dg_s, a.w[0], D, G, R, row0, B, tid, nthr,
-                   [&](int r, int d, float dx) {
-                     dxs[((row0 + r) * T + t) * D + d] = dx;
-                   });
-      }
-      __syncthreads();  // dg_s is read by everyone before it is overwritten
-    }
-  }
-
-  for (int l = 0; l < L; ++l)
-#pragma unroll
-    for (int r = 0; r < TR; ++r) {
-      const long long row = row0 + r0 + r;
-      if (row >= B) continue;
-      float vh[TJ], vc[TJ];
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        vh[j] = dh_s[l * HR + (r * TJ + j) * nthr + tid];
-        vc[j] = dc_s[l * HR + (r * TJ + j) * nthr + tid];
-      }
-      F::st4(dh0 + ((size_t)l * B + row) * H + j0, vh);
-      F::st4(dc0 + ((size_t)l * B + row) * H + j0, vc);
-    }
-}
-
-// ---------------------------------------------------------------------------
 // C interface: each function launches on `stream` and returns
 // cudaGetLastError() (0 = ok).
 // ---------------------------------------------------------------------------
@@ -284,35 +184,6 @@ static int fwd_go(const float* xs, const float* h0, const float* c0,
                           xs, h0, c0, a, batch, t_len, d, hidden, layers, rows);
 }
 
-template <typename CT>
-static int bwd_go(const float* dhs_top, const float* dhT, const float* dcT,
-                  const float* c0, const void* const* w, const void* const* wt,
-                  const void* const* cs, const void* const* gs, void* const* dg,
-                  float* dxs, float* dh0, float* dc0, int batch, int t_len,
-                  int d, int hidden, int layers, int rows, int bf16,
-                  cudaStream_t st) {
-  BwdArgs<CT> a;
-  for (int l = 0; l < MAX_LAYERS; ++l) {
-    const bool on = l < layers;
-    a.w[l] = on ? static_cast<const CT*>(w[l]) : nullptr;
-    a.wt[l] = on ? static_cast<const CT*>(wt[l]) : nullptr;
-    a.cs[l] = on ? cs[l] : nullptr;
-    a.gs[l] = on ? gs[l] : nullptr;
-    a.dg[l] = on ? static_cast<float*>(dg[l]) : nullptr;
-  }
-  const size_t smem =
-      ((size_t)4 * hidden + (size_t)2 * layers * hidden) * rows * sizeof(float);
-  const int threads = (rows / TR) * (hidden / TJ);
-  const int grid = (batch + rows - 1) / rows;
-  if (bf16)
-    return launch_with_smem(lstm_bwd_kernel<__nv_bfloat16, CT>, grid, threads,
-                            smem, st, dhs_top, dhT, dcT, c0, a, dxs, dh0, dc0,
-                            batch, t_len, d, hidden, layers, rows);
-  return launch_with_smem(lstm_bwd_kernel<float, CT>, grid, threads, smem, st,
-                          dhs_top, dhT, dcT, c0, a, dxs, dh0, dc0, batch, t_len,
-                          d, hidden, layers, rows);
-}
-
 extern "C" {
 
 // rows: batch rows per block, a multiple of 4. The block has
@@ -332,23 +203,37 @@ int lstm_fwd(const void* xs, const void* h0, const void* c0,
             hidden, layers, rows, bf16, static_cast<cudaStream_t>(stream));
 }
 
-// Same block shape as lstm_fwd, with (4 * hidden + 2 * layers * hidden) * rows
-// floats of dynamic shared memory; w and wt in bf16 when cbf16.
-int lstm_bwd(const void* dhs_top, const void* dhT, const void* dcT,
-             const void* c0, const void* const* w, const void* const* wt,
-             const void* const* cs, const void* const* gs, void* const* dg,
-             void* dxs, void* dh0, void* dc0, int batch, int t_len, int d,
-             int hidden, int layers, int rows, int bf16, int cbf16,
+// The backward recurrence: lstm_common.cuh's ss_bwd_kernel in its
+// teacher-forced mode (SSB_TF; 32 rows a block of hidden / 8 warps, hidden a
+// multiple of 32 up to 128). wt: every layer's Wᵀ packed for the tier
+// (ops/lstm_ss.py pack_bwd_weights with d_narrow, d_wide); w0x layer 0's
+// W[:d_narrow] in the tier's type (f32, or bf16 when cbf16); layer 0's input
+// is d_narrow (1..8) + d_wide (a multiple of 8 up to hidden) columns, dxs
+// (batch, t_len, d_narrow + d_wide); residuals bf16 (bf16) or f32.
+int lstm_bwd(const void* dhs_top, const void* dhT, const void* dcT, const void* c0, const void* const* wt,
+             const void* w0x, const void* const* cs, const void* const* gs, void* const* dg, void* dxs, void* dh0,
+             void* dc0, int batch, int t_len, int d_narrow, int d_wide, int hidden, int layers, int bf16, int cbf16,
              void* stream) {
-  if (bad_shape(batch, t_len, d, hidden, layers, rows))
-    return (int)cudaErrorInvalidValue;
-  const auto go = cbf16 ? &bwd_go<__nv_bfloat16> : &bwd_go<float>;
-  return go(static_cast<const float*>(dhs_top), static_cast<const float*>(dhT),
-            static_cast<const float*>(dcT), static_cast<const float*>(c0), w, wt,
-            cs, gs, dg, static_cast<float*>(dxs), static_cast<float*>(dh0),
-            static_cast<float*>(dc0), batch, t_len, d, hidden, layers, rows,
-            bf16, static_cast<cudaStream_t>(stream));
+  SsBwdArgs a = ss_bwd_args(wt, w0x, nullptr, cs, gs, dg, layers);
+  a.dhs_top = static_cast<const float*>(dhs_top);
+  a.dhT = static_cast<const float*>(dhT);
+  a.dcT = static_cast<const float*>(dcT);
+  a.dxs = static_cast<float*>(dxs);
+  return ss_bwd_go<SSB_TF>(a, nullptr, c0, nullptr, nullptr, nullptr, nullptr, dh0, dc0, nullptr, batch, t_len,
+                           d_narrow, d_wide, hidden, layers, bf16, cbf16, stream);
 }
+
+// The backward recurrence's dynamic shared memory at a shape it takes (-1
+// for one it does not), bytes
+long long lstm_bwd_smem(int hidden, int layers, int d_narrow, int d_wide, int cbf16) {
+  if (ss_bwd_bad_shape(1, 1, d_narrow, d_wide, hidden, layers)) return -1;
+  return cbf16 ? ss_bwd_smem_bytes<lstm_mma::Bf16Mma>(hidden, layers, d_wide, true)
+               : ss_bwd_smem_bytes<lstm_mma::Tf32Mma>(hidden, layers, d_wide, true);
+}
+
+// The probe build's sums (-DSSB_PROBE; SsbPart order, SB_PARTS of them)
+// into out, then zeroed; without SSB_PROBE, zeros.
+int lstm_bwd_probe_read(unsigned long long* out) { return probe_read(g_ssb_probe, out); }
 
 // Per layer: the pack pass into zpack (batch·t_len x max_l dw_zld(in_l, H)
 // values of the compute type), the partial sums over `splits` slices of the

@@ -35,9 +35,10 @@ them on Hopper and what their design does about that; the bf16 tiers of
 cores (``csrc/lstm_mma.cuh``), their W packed once a call by
 :func:`pack_weights` and their blocks chosen by :func:`peer_tc_rows`,
 :func:`encode_tc_rows` and :func:`serve_tc_rows`; so do the f32 tiers of
-``peer_context``, ``fused_serve`` and ``fused_decode``, in three-pass TF32
-(``Tf32Mma``), their W packed by :func:`pack_weights_tf32` and their blocks
-chosen by :func:`peer_tf32_rows` and :func:`serve_tf32_rows`;
+``peer_context``, ``fused_encode``, ``fused_serve`` and ``fused_decode``, in
+three-pass TF32 (``Tf32Mma``), their W packed by :func:`pack_weights_tf32`
+and their blocks chosen by :func:`peer_tf32_rows`, :func:`encode_tf32_rows`
+and :func:`serve_tf32_rows`;
 so does the cell on bf16 tensors, W read as stored (nothing packed: the
 cell is launched once a step), its block from :func:`cell_tc_rows`. Each wrapper runs its
 plain version (:func:`fused_serve_reference`, :func:`peer_context_reference`,
@@ -73,6 +74,7 @@ __all__ = [
     "peer_context_reference",
     "peer_tc_rows",
     "encode_tc_rows",
+    "encode_tf32_rows",
     "serve_tc_rows",
     "serve_tf32_rows",
     "peer_tf32_rows",
@@ -243,11 +245,11 @@ def fused_encode_reference(params: Sequence[LSTMParams], xs: torch.Tensor,
 
 
 def kernel_rows(hidden: int, layers: int, d: int) -> int:
-    """Batch rows per block of the f32 FMA kernels (``fused_encode``, the
-    cell): as many as 256 threads of 8 rows x 4 hidden units cover, halved
-    until the block's shared memory (h and c of every layer, and the
-    layer-0 input: ``d`` floats a row) fits. Raises for shapes the kernel
-    does not take."""
+    """Batch rows per block of the f32 FMA body (``csrc/fused_serve.cu``'s
+    ``lstm_layer_step``: the f32 cell, one layer): as many as 256 threads of
+    8 rows x 4 hidden units cover, halved until the block's shared memory (h
+    and c of every layer, and the layer-0 input: ``d`` floats a row) fits.
+    Raises for shapes the body does not take."""
     if hidden < 32 or hidden % 32:
         raise ValueError(f"the kernel needs hidden % 32 == 0, got {hidden}")
     if not 1 <= layers <= MAX_LAYERS:
@@ -646,6 +648,33 @@ def peer_tf32_rows(ctx_dim: int, n_peers: int, d: int, *, rows: int = 0) -> TcGe
                      f"memory in the f32 peer context's block, more than {_SMEM_LIMIT}")
 
 
+def encode_tf32_rows(hidden: int, layers: int, d: int) -> TcGeom:
+    """The block of the f32 encoder on three-pass TF32 (``csrc/lstm_mma.cuh``
+    encoder with Tf32Mma, the f32 peer context's body without the context):
+    the most rows, a power of two from :func:`_tc_top` down to 32, c in
+    shared memory where it fits beside z and the staging, else in device
+    memory; W streams from L2. Raises for shapes the kernel does not take:
+    hidden not a multiple of 32, more than 8 layers, or a block of 32 rows
+    past a block's shared memory."""
+    if hidden < 32 or hidden % 32:
+        raise ValueError(f"the f32 encoder needs hidden % 32 == 0, got {hidden}")
+    if not 1 <= layers <= MAX_LAYERS:
+        raise ValueError(f"the f32 encoder takes 1..{MAX_LAYERS} layers, got {layers}")
+    if d < 1:
+        raise ValueError(f"the f32 encoder needs d >= 1 coordinates a token, got d={d}")
+    rps = [rp for rp in _TF32_ROWS if rp <= _tc_top(hidden)]
+    for rp in rps:
+        for c_smem in (True, False):
+            smem = _tc_smem(False, rp, rp, d, hidden, layers, False, c_smem, f32=True)
+            if smem <= _SMEM_LIMIT:
+                return _tf32_geom(0, rp, hidden, c_smem, smem)
+    raise ValueError(
+        f"d={d}, hidden={hidden}, layers={layers}: the f32 encoder's block of 32 rows keeps [x, h of every layer] "
+        f"and a staging row in f32, {_tc_smem(False, 32, 32, d, hidden, layers, False, False, f32=True)} bytes of "
+        f"shared memory with c in device memory, more than {_SMEM_LIMIT}"
+    )
+
+
 @functools.cache
 def _pack_index(k_rows: int, hidden: int, device: torch.device) -> torch.Tensor:
     """Where each element of one layer's packed W comes from: flat indices
@@ -852,22 +881,20 @@ def fused_encode(
 def launch_encode(lib, params: Sequence[LSTMParams], xs, compute_dtype) -> torch.Tensor:
     """Launch the encode kernel of ``lib`` (as :func:`launch_peer_context`)
     on checked CUDA tensors of the tier → the final top-layer h (B, H); not
-    counted. The bf16 tier packs W (:func:`pack_weights`) and takes its block
-    from :func:`encode_tc_rows`, the f32 tier from :func:`kernel_rows`."""
+    counted. W is packed once a call (bf16: :func:`pack_weights`; f32:
+    :func:`pack_weights_tf32`) and the block comes from
+    :func:`encode_tc_rows` or :func:`encode_tf32_rows`."""
     batch, t_len, d = xs.shape
     hidden, layers = params[0].w.shape[1] // 4, len(params)
     out = torch.empty((batch, hidden), device=xs.device, dtype=torch.float32)
-    ws, c_glob = [p.w for p in params], None
     if compute_dtype == torch.bfloat16:
-        geo = encode_tc_rows(hidden, layers, d)
-        ws = [pack_weights(params, d)]
-        if not geo.c_smem:
-            c_glob = torch.empty(-(-batch // geo.rp) * layers * geo.rp * hidden, device=xs.device)
+        geo, w = encode_tc_rows(hidden, layers, d), pack_weights(params, d)
     else:
-        geo = TcGeom(0, kernel_rows(hidden, layers, d), 0, 0, False, False, 0)
+        geo, w = encode_tf32_rows(hidden, layers, d), pack_weights_tf32(params, d)
+    c_glob = None if geo.c_smem else torch.empty(-(-batch // geo.rp) * layers * geo.rp * hidden, device=xs.device)
     with torch.cuda.device(xs.device):
         err = lib.fused_encode_launch(
-            xs.data_ptr(), out.data_ptr(), _ptrs(ws), _ptrs([p.b for p in params]),
+            xs.data_ptr(), out.data_ptr(), _ptrs([w]), _ptrs([p.b for p in params]),
             batch, t_len, d, hidden, layers, geo.rp, int(compute_dtype == torch.bfloat16), geo.mt, geo.warps,
             int(geo.w_res), None if c_glob is None else c_glob.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
@@ -1077,6 +1104,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_serve_tf32_smem_bytes.restype = ctypes.c_longlong
     lib.peer_context_smem_bytes.argtypes = [i32] * 7
     lib.peer_context_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_encode_smem_bytes.argtypes = [i32] * 7
+    lib.fused_encode_smem_bytes.restype = ctypes.c_longlong
     lib.lstm_cell_launch.argtypes = [vp] * 7 + [i32] * 5 + [vp]
     for f in (lib.fused_serve_launch, lib.fused_encode_launch, lib.peer_context_launch, lib.fused_decode_f32,
               lib.lstm_cell_launch):

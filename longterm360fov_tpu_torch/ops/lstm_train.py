@@ -18,7 +18,10 @@ Three kernels of ``csrc/lstm_train.cu`` carry it on the card:
 * :func:`lstm_fwd`, the forward recurrence, which writes the residuals;
 * :func:`lstm_bwd`, the backward recurrence in reverse time, which carries
   ``dh`` and ``dc`` per layer and writes ``dgates``, ``dxs``, ``dh0`` and
-  ``dc0``;
+  ``dc0``: the scheduled-sampling decoder's tensor-core body
+  (``csrc/lstm_common.cuh`` ss_bwd_kernel) in its teacher-forced mode, its
+  block from :func:`bwd_block`, Wᵀ packed once a call by
+  ``lstm_ss.pack_bwd_weights``;
 * :func:`lstm_dw`, the reduction ``dW_l = Σ_{b,t} z_{b,t}ᵀ dgates_{b,t}``
   and ``db_l = Σ dgates`` with ``z = [input_t, h_{t-1}]``: a pack pass
   writes each layer's z once in the compute type (:func:`dw_pack` runs it
@@ -57,8 +60,11 @@ __all__ = [
     "lstm_seq_states_reference",
     "lstm_fwd",
     "lstm_bwd",
+    "launch_bwd",
     "lstm_dw",
     "kernel_rows",
+    "bwd_split",
+    "bwd_block",
     "dw_splits",
     "dw_zld",
     "dw_pack",
@@ -67,7 +73,7 @@ __all__ = [
 
 MAX_LAYERS = 8  # csrc/lstm_train.cu MAX_LAYERS
 _SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use (227 KB)
-_MAX_THREADS = 256  # the recurrence kernels' __launch_bounds__
+_MAX_THREADS = 256  # the forward kernel's __launch_bounds__
 _TR, _TJ = 4, 4  # rows and hidden units per thread
 _DW_TILE = 128  # csrc/lstm_common.cuh DW_T: gate columns of a dW tile
 _DW_FEATURES = 144  # DW_F: z features of a dW tile (nine 16-row mma tiles)
@@ -249,22 +255,23 @@ def _pack_reference(xs: torch.Tensor, h0: torch.Tensor, res: Residuals, layer: i
 
 
 def kernel_rows(hidden: int, layers: int, d: int) -> int:
-    """Batch rows per block of the recurrence kernels.
+    """Batch rows per block of the forward recurrence kernel.
 
     A thread owns 4 rows x 4 hidden units, so a block of R rows has
     (R / 4) · (hidden / 4) threads. The training batch is small next to
     serving's, so the block takes 16 rows: B = 4096 then gives 256 blocks of
     128 threads on the 132 SMs, two resident per SM (``csrc/lstm_train.cu``
-    says why). Rows are halved until the block's shared memory fits; raises
-    for shapes the kernels do not take."""
+    says why). Rows are halved until the block's shared memory (h and c of
+    every layer, the layer-0 input) fits; raises for shapes the kernel does
+    not take. (The backward's block is :func:`bwd_block`'s.)"""
     if hidden < 32 or hidden % 32:
         raise ValueError(f"the kernels need hidden % 32 == 0, got {hidden}")
     if not 1 <= layers <= MAX_LAYERS:
         raise ValueError(f"the kernels take 1..{MAX_LAYERS} layers, got {layers}")
     rows = min(16, _MAX_THREADS // (hidden // _TJ) * _TR)
 
-    def smem(r):  # the larger of the forward's and the backward's needs
-        return 4 * r * max(2 * layers * hidden + d, 4 * hidden + 2 * layers * hidden)
+    def smem(r):
+        return 4 * r * (2 * layers * hidden + d)
 
     while rows >= _TR and smem(rows) > _SMEM_LIMIT:
         rows //= 2
@@ -274,6 +281,45 @@ def kernel_rows(hidden: int, layers: int, d: int) -> int:
             f"fit one block's shared memory"
         )
     return rows
+
+
+_BWD_NARROW = 8  # csrc/lstm_common.cuh SSB_MAX_D: input columns the backward's dx partials take
+
+
+def bwd_split(d: int) -> Tuple[int, int]:
+    """Layer 0's ``d`` input columns as the backward recurrence takes them
+    → (narrow, wide): up to 8 narrow columns first, whose gradient is the
+    warps' ``mma.sync`` partials over their gate columns (every preset's x,
+    d = 3), then the rest in whole n8 tiles of layer 0's product, one a
+    warp, as the scheduled-sampling decoder's dctx (the teacher-forced
+    decoder's static context, d = 3 + C)."""
+    narrow = d if d <= _BWD_NARROW else (d - 1) % 8 + 1
+    return narrow, d - narrow
+
+
+def bwd_block(hidden: int, layers: int, d: int, compute_dtype=torch.float32):
+    """The block of the backward recurrence (``csrc/lstm_common.cuh``
+    ss_bwd_kernel in its teacher-forced mode): ``lstm_ss.bwd_block`` with
+    layer 0's input split by :func:`bwd_split`, its wide columns taking the
+    place of a per-step context → ``lstm_ss.SsBwdGeom``. Raises a
+    ValueError that names the shape where the kernel does not take it:
+    hidden not a multiple of 32 up to 128, more than 8 layers, more than
+    hidden + 8 input columns, or a block past shared memory."""
+    from .lstm_ss import bwd_block as ss_block  # lstm_ss imports this module
+
+    if hidden % 32 or not 32 <= hidden <= 128:
+        raise ValueError(f"lstm_seq_states' backward takes hidden a multiple of 32 up to 128 (a warp each 8 units, "
+                         f"at most 16), got hidden={hidden}")
+    if not 1 <= layers <= MAX_LAYERS:
+        raise ValueError(f"lstm_seq_states' backward takes 1..{MAX_LAYERS} layers, got {layers}")
+    narrow, wide = bwd_split(d)
+    if d < 1 or wide > hidden:
+        raise ValueError(f"lstm_seq_states' backward takes 1..{hidden + _BWD_NARROW} input columns at "
+                         f"hidden={hidden} (up to {_BWD_NARROW}, then whole n8 tiles, one a warp), got d={d}")
+    try:
+        return ss_block(hidden, layers, narrow, wide, compute_dtype, step_ctx=True)
+    except ValueError as e:
+        raise ValueError(f"lstm_seq_states' backward at d={d} ({narrow} + {wide} input columns): {e}") from None
 
 
 def dw_splits(batch: int, t_len: int, hidden: int, d: int, n_sm: int) -> int:
@@ -434,19 +480,6 @@ def _check_bwd(params, res, batch, t_len, d, hidden, f32s):
                 raise ValueError(f"residual {t.dtype} {tuple(t.shape)} on {t.device} does not match the call")
 
 
-def _transposed(params: Sequence[LSTMParams], d: int) -> List[torch.Tensor]:
-    """Per layer, the weights the backward's ``dgates · Wᵀ`` reads row by
-    row: layer 0 ``W[D:]ᵀ`` (4H, H), which gives dh; layer l > 0
-    ``[W[H:]; W[:H]]ᵀ`` (4H, 2H), which gives dh and the gradient of the
-    layer's input. (Layer 0's input gradient reads ``W[:D]`` as it is.)"""
-    out = []
-    for l, p in enumerate(params):
-        d_in = d if l == 0 else p.w.shape[1] // 4
-        w = p.w[d_in:] if l == 0 else torch.cat([p.w[d_in:], p.w[:d_in]])
-        out.append(w.t().contiguous())
-    return out
-
-
 def lstm_bwd(
     params: Sequence[LSTMParams], c0: torch.Tensor, res: Residuals,
     dhs_top: torch.Tensor, dhT: torch.Tensor, dcT: torch.Tensor,
@@ -462,33 +495,47 @@ def lstm_bwd(
         (dcT, (layers, batch, hidden)), (c0, (layers, batch, hidden)),
     ])
     check_compute(compute_dtype)
-    rdt = res.hs[0].dtype
     if dhs_top.device.type == "cpu":
         return _bwd_recurrence_reference(params, c0, res, dhs_top, dhT, dcT, compute_dtype)
-    rows = kernel_rows(hidden, layers, d)
+    out = launch_bwd(_library(), params, c0, res, dhs_top, dhT, dcT, compute_dtype)
+    count_launch(lstm_bwd, compute_dtype)
+    return out
+
+
+lstm_bwd.launches = lstm_bwd.launches_bf16 = 0
+
+
+def launch_bwd(lib, params: Sequence[LSTMParams], c0, res: Residuals, dhs_top, dhT, dcT, compute_dtype):
+    """Launch the backward recurrence of ``lib`` (a build of
+    ``csrc/lstm_train.cu``: the kernels' own, or a probe build, ``-DSSB_PROBE``)
+    on checked CUDA tensors → :func:`lstm_bwd`'s outputs; not counted. The
+    block comes from :func:`bwd_block`, Wᵀ is packed once a call by
+    ``lstm_ss.pack_bwd_weights``."""
+    from .lstm_ss import pack_bwd_weights  # lstm_ss imports this module
+
+    batch, t_len, hidden = dhs_top.shape
+    layers = len(params)
+    d = params[0].w.shape[0] - hidden
+    rdt = res.hs[0].dtype
+    bwd_block(hidden, layers, d, compute_dtype)  # raises for a shape the kernel does not take
+    narrow, wide = bwd_split(d)
     dev = dhs_top.device
-    wt = in_compute(_transposed(params, d), compute_dtype)
+    wt = pack_bwd_weights(params, narrow, wide, compute_dtype)
+    (w0x,) = in_compute([params[0].w[:narrow]], compute_dtype)
     dgates = [torch.empty((batch, t_len, 4 * hidden), device=dev) for _ in params]
     dxs = torch.empty((batch, t_len, d), device=dev)
     dh0 = torch.empty((layers, batch, hidden), device=dev)
     dc0 = torch.empty((layers, batch, hidden), device=dev)
-    ws = in_compute([p.w for p in params], compute_dtype)
-    _check_card([dhs_top, dhT, dcT, c0, *ws, *wt, *res.cs, *res.gs, *dgates, dxs, dh0, dc0])
-    lib = _library()
+    _check_card([dhs_top, dhT, dcT, c0, *wt, w0x, *res.cs, *res.gs, *dgates, dxs, dh0, dc0])
     with torch.cuda.device(dev):
         err = lib.lstm_bwd(
-            dhs_top.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), c0.data_ptr(),
-            _ptrs(ws), _ptrs(wt), _ptrs(res.cs), _ptrs(res.gs), _ptrs(dgates),
-            dxs.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            batch, t_len, d, hidden, layers, rows, int(rdt == torch.bfloat16),
+            dhs_top.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), c0.data_ptr(), _ptrs(wt), w0x.data_ptr(),
+            _ptrs(res.cs), _ptrs(res.gs), _ptrs(dgates), dxs.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            batch, t_len, narrow, wide, hidden, layers, int(rdt == torch.bfloat16),
             int(compute_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "lstm_bwd")
-    count_launch(lstm_bwd, compute_dtype)
     return dgates, dxs, dh0, dc0
-
-
-lstm_bwd.launches = lstm_bwd.launches_bf16 = 0
 
 
 def lstm_dw(
@@ -566,11 +613,20 @@ dw_pack.launches = dw_pack.launches_bf16 = 0
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The kernels' library, built at first use and loaded once."""
-    lib = _build.load("lstm_train")
+    return bind(_build.load("lstm_train"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/lstm_train.cu``: the library, or a probe
+    build of it) with its entry points typed."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
     lib.lstm_fwd.argtypes = [vp, vp, vp, arr, arr, arr, arr, arr] + [i32] * 8 + [vp]
-    lib.lstm_bwd.argtypes = [vp, vp, vp, vp, arr, arr, arr, arr, arr, vp, vp, vp] + [i32] * 8 + [vp]
+    lib.lstm_bwd.argtypes = [vp, vp, vp, vp, arr, vp, arr, arr, arr, vp, vp, vp] + [i32] * 8 + [vp]
+    lib.lstm_bwd_smem.argtypes = [i32] * 5
+    lib.lstm_bwd_smem.restype = ctypes.c_longlong
+    lib.lstm_bwd_probe_read.argtypes = [vp]
+    lib.lstm_bwd_probe_read.restype = i32
     lib.lstm_dw.argtypes = [vp, vp, arr, arr, arr, arr, vp, vp, arr, arr] + [i32] * 9 + [vp]
     for f in (lib.lstm_fwd, lib.lstm_bwd, lib.lstm_dw):
         f.restype = i32

@@ -1,10 +1,11 @@
-"""Probe of the PyTorch port's 10 s training recurrences on the tensor cores
+"""Probe of the PyTorch port's training recurrences on the tensor cores
 on one NVIDIA card: the scheduled-sampling decoder backward
 (``ops.lstm_ss.ss_bwd``, the static context of row 6, and
 ``ops.lstm_align.dec_bwd``, the per-step context of row 7;
-``csrc/lstm_common.cuh`` ss_bwd_kernel) and the lockstep peer forward
-(``ops.lstm_align.peer_fwd``; ``csrc/lstm_align.cu`` on ``lstm_mma.cuh``'s
-encoder).
+``csrc/lstm_common.cuh`` ss_bwd_kernel), its teacher-forced mode, row 5's
+backward (``ops.lstm_train.lstm_bwd``; ``csrc/lstm_train.cu``), and the
+lockstep peer forward (``ops.lstm_align.peer_fwd``; ``csrc/lstm_align.cu``
+on ``lstm_mma.cuh``'s encoder).
 
 Run from the root of a checkout: ``python3 scripts/torch_align_train_probe.py``.
 ``--checkout DIR`` imports the port (and its ``chip_smoke.py``) from another
@@ -20,9 +21,9 @@ Prints, on the card it finds (it fails without one):
    (``chip_smoke.report_train_mma``) and the serve kernels' of
    ``csrc/fused_serve.cu``, whose peer context shares the peer forward's
    body (``chip_smoke.report_lstm_mma``);
-2. both kernels against their plain versions at the card tests' shapes, in
+2. the kernels against their plain versions at the card tests' shapes, in
    both compute types and residual types: the largest gap of each output
-   relative to max|plain| (the backward's f32 gate 1e-4; the peer forward's
+   relative to max|plain| (the backwards' f32 gate 1e-4; the peer forward's
    absolute, gate 1e-5), whether a repeat is bit-equal, and whether a
    permuted batch gives the permuted answer bit for bit;
 3. times, CUDA events, in turns (``chip_smoke.in_turns``) within the
@@ -31,15 +32,18 @@ Prints, on the card it finds (it fails without one):
    per step) and at row 6's (B = 4096, T = 30, L = 2, static C = 128 and
    64), the peer forward at B = 4096, K = 7, T = 100, C = 128, and the
    serve tier's peer context at the same shape (the body they share), each
-   in f32 and bf16 compute;
+   in f32 and bf16 compute; and row 5's backward at the 10 s encoder's shape
+   (B = 4096, T = 100, L = 2, on the f32 residuals it trains with; cuDNN's
+   backward data in f32 beside it) and at ``seq2seq-tf-30``'s (B = 4096,
+   T = 30, L = 1, bf16 residuals), in both compute types;
 4. unless ``--self-only``: the time split of the probe build
    (``-DSSB_PROBE``: thread 0 of every block adds its ``clock64`` deltas a
-   part, ``SsbPart`` order) of the decoder backward at the 10 s shape in
-   both compute types;
+   part, ``SsbPart`` order) of the decoder backward and of row 5's at the
+   10 s shapes in both compute types;
 5. with ``--steps`` only: the train step (CUDA events, the batch's copy to
-   the card included) of ``stacked-ss-crossuser-10s`` and
-   ``stacked-ss-crossuser`` at B = 4096 in f32 and bf16 compute, and a
-   profile of the 10 s steps' device time by kernel.
+   the card included) of ``stacked-ss-crossuser-10s``,
+   ``stacked-ss-crossuser`` and ``seq2seq-tf-30`` at B = 4096 in f32 and
+   bf16 compute, and a profile of the 10 s steps' device time by kernel.
 """
 
 import argparse
@@ -115,6 +119,33 @@ def check_bwd(chip_smoke, dev, lstm_align, lstm_ss):
     return out
 
 
+def check_tf_bwd(chip_smoke, dev, lstm_train):
+    """2. for row 5's backward (ss_bwd_kernel's teacher-forced mode), fed
+    the forward kernel's residuals and random dhs_top, dhT, dcT."""
+    out = {}
+    cases = [(4099, 1, 3, 30, 128), (300, 2, 3, 100, 128), (1031, 1, 3, 30, 128), (300, 1, 3, 30, 64),
+             (257, 2, 67, 30, 128), (257, 2, 131, 30, 128), (65, 3, 3, 12, 128), (33, 1, 9, 12, 32)]
+    for batch, layers, d, t, h in cases:
+        ps, (xs, h0, c0), up = chip_smoke.lstm_case(dev, batch, layers, seed=batch + d, t=t, d=d, h=h)
+        perm = torch.randperm(batch, generator=torch.Generator().manual_seed(0)).to(dev)
+        for rd in (F32, BF):
+            res = lstm_train.lstm_fwd(ps, xs, h0, c0, rd)
+            res_p = type(res)(*[[x[perm] for x in part] for part in res])
+            for cd in (F32, BF):
+                got = lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=cd)
+                again = lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=cd)
+                cut = lstm_train.lstm_bwd(ps, c0[:, perm], res_p, up[0][perm], up[1][:, perm], up[2][:, perm],
+                                          compute_dtype=cd)
+                ref = lstm_train._bwd_recurrence_reference(ps, c0, res, *up, cd)
+                flat = lambda o: [*o[0], *o[1:]]  # noqa: E731
+                moved = [*[g[perm] for g in got[0]], got[1][perm], got[2][:, perm], got[3][:, perm]]
+                out[f"lstm_bwd B={batch} L={layers} D={d} T={t} H={h} {tag(rd, cd)}"] = {
+                    "rel_gap": rel_gaps(flat(got), flat(ref)),
+                    "repeat_bit_equal": all(torch.equal(x, y) for x, y in zip(flat(got), flat(again))),
+                    "permuted_bit_equal": all(torch.equal(x, y) for x, y in zip(moved, flat(cut)))}
+    return out
+
+
 def check_fwd(chip_smoke, dev, lstm_align):
     """2. for the peer forward."""
     out = {}
@@ -143,7 +174,7 @@ def main():
         sys.exit("torch sees no CUDA device; this probe runs only on the card")
     sys.path.insert(0, args.checkout)
     import chip_smoke
-    from longterm360fov_tpu_torch.ops import _build, fused_lstm, lstm_align, lstm_ss
+    from longterm360fov_tpu_torch.ops import _build, fused_lstm, lstm_align, lstm_ss, lstm_train
 
     fused_lstm.exact_f32_matmul()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
@@ -152,10 +183,12 @@ def main():
     dev = torch.device("cuda:0")
     if args.steps:
         return time_steps(chip_smoke, dev, smi)
-    with ThreadPoolExecutor(max_workers=4) as pool:  # one nvcc each, started together
-        jobs = {name: pool.submit(_build.build, name) for name in ("lstm_ss", "lstm_align", "fused_serve")}
+    with ThreadPoolExecutor(max_workers=6) as pool:  # one nvcc each, started together
+        jobs = {name: pool.submit(_build.build, name) for name in ("lstm_ss", "lstm_align", "fused_serve",
+                                                                    "lstm_train")}
         if not args.self_only:
             jobs["probe"] = pool.submit(_build.build, "lstm_align", ("SSB_PROBE",))
+            jobs["probe_tf"] = pool.submit(_build.build, "lstm_train", ("SSB_PROBE",))
         builds = {k: j.result() for k, j in jobs.items()}
     for k, b in builds.items():
         print(f"build {k}: {b.seconds:.1f} s; {chip_smoke.ptxas_report(b.log)}", flush=True)
@@ -168,6 +201,8 @@ def main():
               f"f32 gate 1e-4): {json.dumps(check_bwd(chip_smoke, dev, lstm_align, lstm_ss))}", flush=True)
         print(f"peer forward against plain (max abs gap of php, pcp, ctx; f32 gate 1e-5): "
               f"{json.dumps(check_fwd(chip_smoke, dev, lstm_align))}", flush=True)
+        print(f"row 5's backward against plain (max gap / max|plain| of dgates.., dxs, dh0, dc0; f32 gate 1e-4, "
+              f"bf16 compute 1e-2): {json.dumps(check_tf_bwd(chip_smoke, dev, lstm_train))}", flush=True)
 
     # 3. times
     B = chip_smoke.TRAIN_B
@@ -193,6 +228,26 @@ def main():
     iters = {k: (5 if "10s" in k or "serve" in k else 10) for k in calls}
     ms = chip_smoke.in_turns(calls, iters)
     print(f"alone at B={B} on bf16 residuals (ms a call, CUDA events, in turns; {smi}): {json.dumps(ms)}", flush=True)
+    del calls, res10
+    torch.cuda.empty_cache()
+    tf_calls, tf_args = {}, {}
+    for label, layers, t, rd in (("10s encoder", 2, 100, F32), ("seq2seq-tf-30", 1, 30, BF)):
+        ps5, (xs, h0, c0), up = chip_smoke.lstm_case(dev, B, layers, seed=12, t=t)
+        res5 = lstm_train.lstm_fwd(ps5, xs, h0, c0, rd)
+        tf_args[label] = (ps5, c0, res5, up)
+        for cd in (F32, BF):
+            tf_calls[f"lstm_bwd {label} {str(cd)[6:]}"] = (lambda a=tf_args[label], cd=cd: lstm_train.lstm_bwd(
+                *a[:3], *a[3], compute_dtype=cd))
+        if label == "10s encoder":  # cuDNN's backward data in f32, the yardstick
+            net = chip_smoke.cudnn_lstm(ps5, 3, dev, training=True)
+            x_g = xs.clone().requires_grad_(True)
+            h0_g, c0_g = h0.clone().requires_grad_(True), c0.clone().requires_grad_(True)
+            y, (hn, cn) = net(x_g, (h0_g, c0_g))
+            tf_calls[f"cudnn_bwd_data {label}"] = lambda y=y, hn=hn, cn=cn, x_g=x_g, h0_g=h0_g, c0_g=c0_g, up=up: \
+                torch.autograd.grad((y, hn, cn), (x_g, h0_g, c0_g), up, retain_graph=True)
+    ms = chip_smoke.in_turns(tf_calls, {k: 5 if "10s" in k else 10 for k in tf_calls})
+    print(f"row 5's backward alone at B={B} (ms a call, CUDA events, in turns; the 10 s encoder T = 100, L = 2, "
+          f"f32 residuals; seq2seq-tf-30 T = 30, L = 1, bf16 residuals; {smi}): {json.dumps(ms)}", flush=True)
     if args.self_only:
         return
 
@@ -211,17 +266,30 @@ def main():
         split = {p: round(v / total, 4) for p, v in zip(PARTS, buf) if v}
         print(f"dec_bwd {str(cd)[6:]} compute probe build at the 10 s shape ({t_ms:.3f} ms a call; thread 0's "
               f"clock64 a part, summed over the blocks): {json.dumps(split)}", flush=True)
+    lib_tf = lstm_train.bind(ctypes.CDLL(str(builds["probe_tf"].path)))
+    ps5, c0, res5, up = tf_args["10s encoder"]
+    for cd in (F32, BF):
+        run = lambda: lstm_train.launch_bwd(lib_tf, ps5, c0, res5, *up, cd)  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        lib_tf.lstm_bwd_probe_read(buf)
+        t_ms = chip_smoke.cuda_ms(run, 2)
+        lib_tf.lstm_bwd_probe_read(buf)
+        total = sum(buf)
+        split = {p: round(v / total, 4) for p, v in zip(PARTS, buf) if v}
+        print(f"lstm_bwd {str(cd)[6:]} compute probe build at the 10 s encoder's shape ({t_ms:.3f} ms a call; "
+              f"thread 0's clock64 a part, summed over the blocks): {json.dumps(split)}", flush=True)
 
 
 def time_steps(chip_smoke, dev, smi):
-    """5.: the train steps of the two crossuser presets, and the 10 s steps'
-    device time by kernel."""
+    """5.: the train steps of the two crossuser presets and seq2seq-tf-30,
+    and the 10 s steps' device time by kernel."""
     from longterm360fov_tpu_torch import train
     from longterm360fov_tpu_torch.config import get_preset
     from longterm360fov_tpu_torch.models import get_family
 
     out = {}
-    for preset, iters in (("stacked-ss-crossuser-10s", 5), ("stacked-ss-crossuser", 10)):
+    for preset, iters in (("stacked-ss-crossuser-10s", 5), ("stacked-ss-crossuser", 10), ("seq2seq-tf-30", 10)):
         cfg = get_preset(preset, batch_size=chip_smoke.TRAIN_B)
         fam = get_family(cfg.model_family)
         batch = next(train.batch_iterator(chip_smoke.synthetic_windows(cfg)[0], cfg.batch_size, seed=2))

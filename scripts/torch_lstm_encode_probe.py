@@ -40,23 +40,28 @@ finds (it fails without one):
    kernel) at B = 65,536 in bf16 and f32, in turns, one process a checkout,
    so that a call can run parent, change, change, parent;
 6. with ``--f32`` only: the f32 tier (three-pass TF32 on ``mma.sync``:
-   ``peer_context_kernel<float>``, ``fused_serve_kernel<*, float>``, the
-   latter also from given states for ``fused_decode``). Unless
-   ``--skip-checks``: the builds' registers and spills, each timed block's
-   dynamic shared memory, the SASS by opcode, and the checks: the peer context and the serve kernel's
-   four tiers (no context, static C = 64 and 128, lockstep K = 7) and
-   ``fused_decode`` against their plain versions at ragged batches in
+   ``peer_context_kernel<float>``, ``fused_encode_kernel<float>``,
+   ``fused_serve_kernel<*, float>``, the latter also from given states for
+   ``fused_decode``). Unless ``--skip-checks``: the builds' registers and
+   spills, each timed block's dynamic shared memory, the SASS by opcode,
+   and the checks: the peer context, the encoder (at the card tests'
+   shapes, in the blocks ``encode_tf32_rows`` picks) and the serve
+   kernel's four tiers (no context, static C = 64 and 128, lockstep K = 7)
+   and ``fused_decode`` against their plain versions at ragged batches in
    every block the choosers take (64-row tiles, 32-row ones), each repeat
    bit-equal and each row bit-equal in a permuted batch. Then the times in
    turns (each a CUDA-event mean): the serve kernel at row 1's four shapes
    (no context B = 262,144; static C = 128 and 64, L = 2, B = 65,536; the
    lockstep serve kernel at 65,536) and row 3's (``fused_decode``, B =
    262,144, L = 1, 30 steps), the peer context at B = 4096 (beside cuDNN's
-   ``nn.LSTM`` in f32, TF32 off) and 65,536, and two serve calls end to
-   end (``seq2seq-tf-30`` at B = 262,144, ``stacked-ss-crossuser-10s`` at
-   65,536). With ``--checkout DIR --skip-checks``, another checkout's f32
-   tier at the same shapes, one process a checkout. Unless ``--self-only``:
-   the f32 probe build's split at row 1's shapes.
+   ``nn.LSTM`` in f32, TF32 off) and 65,536, the encoder (row 4) at
+   ``stacked-ss-crossuser``'s peer rows, 65,536 (beside cuDNN's ``nn.LSTM``
+   in f32) and 262,144, and three serve calls end to end
+   (``seq2seq-tf-30`` at B = 262,144, ``stacked-ss-crossuser`` and
+   ``stacked-ss-crossuser-10s`` at 65,536). With ``--checkout DIR
+   --skip-checks``, another checkout's f32 tier at the same shapes, one
+   process a checkout. Unless ``--self-only``: the f32 probe build's split
+   at row 1's shapes and the encoder's.
 """
 
 import argparse
@@ -224,6 +229,19 @@ def f32_calls(chip_smoke, dev):
             dargs = (params["decoder"], params["proj"]["w"], params["proj"]["b"], *states, y0, m.h_out)
             calls[f"fused_decode B={batch} L=1 30 steps"] = lambda dargs=dargs: fused_lstm.fused_decode(*dargs)
             calls[f"serve call seq2seq-tf-30 B={batch}"] = chip_smoke.serve_call(cfg, params, dev, batch, f32, seq2seq)
+        if preset == "stacked-ss-crossuser":  # row 4: the encoder at the peer rows of B = 16384 and 65,536
+            (peer,) = [params["peer_encoder"]]
+            for rows in (65536, 262144):
+                xs = chip_smoke.unit_rows(rng, dev, (rows, m.h_out))
+                calls[f"fused_encode {rows} rows"] = lambda xs=xs, peer=peer: fused_lstm.fused_encode([peer], xs)
+                if rows == 65536:
+                    net = chip_smoke.cudnn_lstm([peer], 3, dev, training=False, dtype=f32)
+
+                    def library(net=net, xs=xs):
+                        with torch.no_grad():
+                            return net(xs)[1][0][-1]
+                    calls[f"cudnn_f32 {rows} rows"] = library
+            calls[f"serve call {preset} B={batch}"] = chip_smoke.serve_call(cfg, params, dev, batch, f32, cross_user)
         if step:
             peer = params["peer_encoder"]
             for pb in (4096, 65536):
@@ -306,6 +324,16 @@ def f32_checks(chip_smoke, dev):
                         "permuted_bit_equal": torch.equal(dec_out[perm], fused_lstm.fused_decode(
                             dec, pw, pb, *pst, y0[perm].contiguous(), 30,
                             context=None if ctx is None else ctx[perm].contiguous()))}
+    for rows, layers, h in ENC_SHAPES:  # row 4 in the blocks encode_tf32_rows picks
+        rng = np.random.default_rng(rows + layers)
+        ps = chip_smoke.stack(rng, dev, 3, layers, h=h)
+        xs = chip_smoke.randn(rng, dev, (rows, 30, 3), 0.3)
+        out = fused_lstm.fused_encode(ps, xs)
+        perm = perm_of(rows)
+        readings[f"fused_encode rows={rows} L={layers} H={h}"] = {
+            "gap": gap(out, fused_lstm.fused_encode_reference(ps, xs)),
+            "repeat_bit_equal": torch.equal(out, fused_lstm.fused_encode(ps, xs)),
+            "permuted_bit_equal": torch.equal(out[perm], fused_lstm.fused_encode(ps, xs[perm].contiguous()))}
     return readings
 
 
@@ -330,22 +358,25 @@ def f32_mode(chip_smoke, dev, smi, args):
         blocks = {label: fused_lstm.serve_tf32_rows(m.hidden, m.layers, m.d, m.ctx_dim, bool(m.peer_align))
                   for label, m in ((label, get_preset(preset).model) for label, preset, _ in F32_SERVE)}
         blocks["peer_context K=7 C=128"] = fused_lstm.peer_tf32_rows(128, 7, 3)
+        blocks["fused_encode L=1 H=128"] = fused_lstm.encode_tf32_rows(128, 1, 3)
         shapes = {k: [g.rp, g.mt, g.warps, g.c_smem, g.smem] for k, g in blocks.items()}
         print(f"f32 blocks at the timed shapes (rows, m16 tiles a warp tile, warps, c in shared memory, bytes of "
               f"dynamic shared memory): {json.dumps(shapes)}", flush=True)
         readings = f32_checks(chip_smoke, dev)
         worst = {kind: max((r["gap"] for n, r in readings.items() if n.startswith(kind)), default=0.0)
-                 for kind in ("peer_context", "fused_serve", "fused_decode")}
+                 for kind in ("peer_context", "fused_encode", "fused_serve", "fused_decode")}
         equal = all(r["repeat_bit_equal"] and r["permuted_bit_equal"] for r in readings.values())
-        print(f"f32 tier against plain (largest absolute gap; gates: peer_context {chip_smoke.ENC_TOL}, the serve "
-              f"kernel and fused_decode {chip_smoke.KERNEL_TOL}): worst {json.dumps(worst)}, every repeat and "
-              f"permuted batch bit-equal: {equal}; {json.dumps(readings)}", flush=True)
+        print(f"f32 tier against plain (largest absolute gap; gates: peer_context and fused_encode "
+              f"{chip_smoke.ENC_TOL}, the serve kernel and fused_decode {chip_smoke.KERNEL_TOL}): worst "
+              f"{json.dumps(worst)}, every repeat and permuted batch bit-equal: {equal}; {json.dumps(readings)}",
+              flush=True)
     calls = f32_calls(chip_smoke, dev)
     with torch.inference_mode():
         for fn in calls.values():
             fn()
         torch.cuda.synchronize()
-        iters = {k: 1 if ("65536" in k and "static" not in k) or "serve call" in k else 3 for k in calls}
+        iters = {k: 1 if ("65536" in k and "static" not in k and "rows" not in k) or "serve call" in k
+                 or "262144 rows" in k else 3 for k in calls}
         ms = chip_smoke.in_turns(calls, iters)
     print(f"f32 tier times (ms a call, CUDA events, in turns; port from {args.checkout}; {smi}): {json.dumps(ms)}",
           flush=True)
@@ -357,7 +388,7 @@ def f32_mode(chip_smoke, dev, smi, args):
     buf = (ctypes.c_ulonglong * len(PARTS))()
     with mock.patch.object(fused_lstm, "_library", lambda: lib):
         probe_calls = {k: v for k, v in f32_calls(chip_smoke, dev).items()
-                       if k.startswith(("fused_serve", "fused_decode", "peer_context"))}
+                       if k.startswith(("fused_serve", "fused_decode", "peer_context", "fused_encode"))}
         for name, fn in probe_calls.items():
             fn()
             torch.cuda.synchronize()

@@ -1,7 +1,8 @@
-"""The host side of the 10 s training recurrences on the tensor cores: the
+"""The host side of the training recurrences on the tensor cores: the
 scheduled-sampling decoder's backward (``csrc/lstm_common.cuh``
-ss_bwd_kernel: ``ops.lstm_ss.pack_bwd_weights``, ``bwd_block``) and the
-lockstep peer forward (``csrc/lstm_align.cu`` on ``lstm_mma.cuh``'s encoder:
+ss_bwd_kernel: ``ops.lstm_ss.pack_bwd_weights``, ``bwd_block``), its
+teacher-forced mode, row 5's backward (``ops.lstm_train.bwd_block``,
+``bwd_split``), and the lockstep peer forward (``csrc/lstm_align.cu`` on ``lstm_mma.cuh``'s encoder:
 ``ops.lstm_align.peer_fwd_block``), on the CPU. The packed Wᵀ is read back
 as mma.sync's B fragments, and its products, emulated as the tensor cores
 compute them, held against ``dgates · Wᵀ``; the kernels themselves are held
@@ -13,7 +14,7 @@ import torch
 
 from longterm360fov_tpu_torch.config import get_preset
 from longterm360fov_tpu_torch.models.cell import LSTMParams, mm, round_to
-from longterm360fov_tpu_torch.ops import fused_lstm, lstm_align, lstm_ss
+from longterm360fov_tpu_torch.ops import fused_lstm, lstm_align, lstm_ss, lstm_train
 
 SMEM = 232448  # dynamic shared memory a Hopper block may use
 BF = torch.bfloat16
@@ -209,3 +210,107 @@ def test_peer_fwd_block_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="K = 9 peers"):
         lstm_align.peer_fwd_block(128, 9, 3)
     assert lstm_align.peer_fwd_block(32, 9, 3, BF).rows_v * 9 <= 256
+
+
+# ---------------------------------------------- row 5's backward: the teacher-forced mode of ss_bwd_kernel
+
+
+def _warp_order(hidden):
+    """Gate columns in the order the teacher-forced backward's dx partials
+    sum them: warp w's 32 columns (gate q's units 8w .. 8w + 7, q = 0..3),
+    one chunk of 4 k8 steps a warp, the warps' partials added in order."""
+    return torch.tensor([q * hidden + 8 * w + j for w in range(hidden // 8) for q in range(4) for j in range(8)])
+
+
+@pytest.mark.parametrize("cd", [torch.float32, BF])
+@pytest.mark.parametrize("d", [3, 67, 131])
+def test_teacher_forced_bwd_pack_and_products(d, cd):
+    """lstm_seq_states' backward at d = 3 (every encoder, the peer encoders,
+    seq2seq-tf-30's decoder) and d = 3 + C (the teacher-forced decoder with
+    video-fusion's C = 64 or crossuser's C = 128 static context): layer 0's
+    input splits into 3 narrow columns and C wide ones (lstm_train.bwd_split);
+    read back as B fragments, each layer's packed stream is Wᵀ in the
+    product's order (layer 0 [dh (W[d:]) | the wide columns (W[3:d])],
+    layer 1 [dh (W[H:]) | the layer below's h (W[:H])]); its product,
+    emulated as the tensor cores compute it, and the narrow dx, the warps'
+    partials over their own 32 gate columns added in warp order, equal the
+    plain version's dgates · Wᵀ (``mm``) within the three-pass bound in f32
+    and 1e-5 relative in bf16."""
+    hidden, layers = 128, 2
+    narrow, wide = lstm_train.bwd_split(d)
+    assert (narrow, wide) == (3, d - 3)
+    rng = np.random.default_rng(d)
+    ps = _stack(rng, d, layers, hidden)
+    packed = lstm_ss.pack_bwd_weights(ps, narrow, wide, cd)
+    dg = torch.tensor(rng.normal(size=(37, 4 * hidden)).astype(np.float32) * 0.1)
+    bound = 2.0 ** -19 + 12 * 2.0 ** -23 + 16 * 2.0 ** -24
+    for l in range(layers):
+        n_rows = hidden + wide if l == 0 else 2 * hidden
+        b = _fragments(packed[l], n_rows, hidden, cd == torch.float32).float()
+        w = round_to(ps[l].w, cd)
+        d_in = d if l == 0 else hidden
+        assert torch.equal(b, torch.cat([w[d_in:], w[narrow:d_in] if l == 0 else w[:hidden]]).t())
+        ref = mm(dg, ps[l].w.t(), cd)  # the plain version's dz = [input grad | dh]
+        want = torch.cat([ref[:, d_in:], ref[:, narrow:d_in] if l == 0 else ref[:, :d_in]], dim=1)
+        cols = [(b, want)]
+        if l == 0:  # dx of the narrow columns: W[:3]ᵀ with the gate columns in warp order
+            order = _warp_order(hidden)
+            cols.append((w[:narrow].t()[order], ref[:, :narrow]))
+            dg_cols = [dg, dg[:, order]]
+        else:
+            dg_cols = [dg]
+        for a, (bm, wm) in zip(dg_cols, cols):
+            if cd == torch.float32:
+                got = _three_pass(a.numpy(), bm.numpy())
+                scale = np.abs(a.numpy()).astype(np.float64) @ np.abs(bm.numpy()).astype(np.float64)
+                assert (np.abs(got - wm.numpy()) <= bound * scale + 1e-30).all()
+            else:
+                got = round_to(a, BF).double() @ bm.double()
+                torch.testing.assert_close(got.float(), wm, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("cd", [torch.float32, BF])
+@pytest.mark.parametrize("hidden,layers,d", [
+    (128, 1, 3),    # seq2seq-tf-30's (and lstm-xyz-10's) encoder and decoder; the crossuser peer
+                    # encoders through lstm_seq (H = ctx_dim = 128, K·B rows)
+    (128, 2, 3),    # the crossuser and video-fusion encoders, T = 30 and 100
+    (64, 1, 3),     # a peer encoder of ctx_dim 64
+    (128, 2, 67),   # video-fusion's teacher-forced decoder: D = 3 + C, C = 64
+    (128, 2, 131),  # the crossuser teacher-forced decoder, C = 128
+    (128, 3, 3),    # the card tests' deepest stack: a ring of 2 k-pairs in f32
+])
+def test_teacher_forced_bwd_block_at_the_training_shapes(hidden, layers, d, cd):
+    """Every shape the training entry points send lstm_seq_states'
+    backward: the scheduled-sampling decoder's block with layer 0's wide
+    columns as a per-step context (no dctx sums): 32 rows in hidden / 8
+    warps, the deepest W ring that fits, within a block's shared memory."""
+    geo = lstm_train.bwd_block(hidden, layers, d, cd)
+    narrow, wide = lstm_train.bwd_split(d)
+    assert geo == lstm_ss.bwd_block(hidden, layers, narrow, wide, cd, True)
+    assert (geo.rows, geo.warps) == (32, hidden // 8) and geo.smem <= SMEM
+    assert geo.stages == (2 if layers == 3 and cd == torch.float32 else 4)
+    e = 4 if cd == torch.float32 else 2
+    assert geo.smem == (32 * (4 * hidden + 16 // e) * e + 8 * layers * 32 * hidden + 4 * 32 * 8 * (1 + hidden // 8)
+                        + (hidden // 8) * 1024 * geo.stages)
+
+
+def test_teacher_forced_bwd_block_refuses_what_the_kernel_does_not_take():
+    """Shapes the FMA backward took and the tensor-core body does not: each
+    refused by a ValueError that names it."""
+    for hidden in (48, 160, 256):
+        with pytest.raises(ValueError, match=f"lstm_seq_states' backward takes hidden a multiple of 32 up to 128.*"
+                                             f"got hidden={hidden}"):
+            lstm_train.bwd_block(hidden, 1, 3)
+    with pytest.raises(ValueError, match="lstm_seq_states' backward takes 1..8 layers, got 9"):
+        lstm_train.bwd_block(128, 9, 3)
+    for d in (0, 137):
+        with pytest.raises(ValueError, match=f"takes 1..136 input columns at hidden=128 .*got d={d}"):
+            lstm_train.bwd_block(128, 1, d)
+    with pytest.raises(ValueError, match=r"backward at d=3 \(3 \+ 0 input columns\): layers=4, hidden=128.* more "
+                                         f"than {SMEM}"):
+        lstm_train.bwd_block(128, 4, 3)
+    for layers in range(5, 9):
+        with pytest.raises(ValueError, match=f"layers={layers}, hidden=128"):
+            lstm_train.bwd_block(128, layers, 3, BF)
+    assert lstm_train.bwd_block(128, 4, 3, BF).stages == 2
+    assert [lstm_train.bwd_split(d) for d in (1, 8, 9, 16, 136)] == [(1, 0), (8, 0), (1, 8), (8, 8), (8, 128)]

@@ -742,9 +742,9 @@ def test_bf16_peer_context_tensor_core_shapes(ctx_dim, k, batch):
 
 def test_bf16_encoders_refuse_the_widest_inputs_on_card():
     """The bf16 encoders' least block, 16 rows of [x, h] in bf16 beside a
-    staging row, does not fit the 16 widest inputs that the f32 tier takes
-    with 8 rows (ROADMAP's known divergences): a named ValueError, no
-    launch."""
+    staging row, does not fit the widest inputs (ROADMAP's known
+    divergences): a named ValueError, no launch; nor does the f32 tier's
+    block of 32 rows in f32, which now runs the same body."""
     hidden, d = 1024, 5209
     ps = [LSTMParams(torch.zeros((d + hidden, 4 * hidden), device="cuda"), torch.zeros(4 * hidden, device="cuda"))]
     xs = torch.zeros((2, 2, d), device="cuda")
@@ -752,7 +752,9 @@ def test_bf16_encoders_refuse_the_widest_inputs_on_card():
     with pytest.raises(ValueError, match="bytes of shared memory"):
         fused_lstm.fused_encode(ps, xs, compute_dtype=BF)
     assert _counts([fused_lstm.fused_encode]) == before
-    assert fused_lstm.fused_encode(ps, xs).shape == (2, hidden)  # the f32 tier takes it
+    with pytest.raises(ValueError, match="the f32 encoder's block of 32 rows .* bytes of shared memory"):
+        fused_lstm.fused_encode(ps, xs)
+    assert _counts([fused_lstm.fused_encode]) == before
     peer = LSTMParams(torch.zeros((7000 + hidden, 4 * hidden), device="cuda"), torch.zeros(4 * hidden, device="cuda"))
     with pytest.raises(ValueError, match="do not fit the bf16 peer context's block"):
         fused_lstm.peer_context(peer, torch.zeros((2, 1, 2, 7000), device="cuda"), torch.ones((2, 1), device="cuda"),
@@ -1103,6 +1105,124 @@ def test_training_recurrences_refuse_what_their_blocks_do_not_take():
     peer = _stack(rng, 3, 1)[0]
     with pytest.raises(ValueError, match="K = 9 peers"):
         lstm_align.peer_fwd(peer, _cuda(rng, (18, 5, 3)), torch.full((2, 9), 1 / 9, device="cuda"))
+
+
+# ------------------ row 4 f32 (fused_encode on three-pass TF32) and row 5's backward on the tensor cores
+# fused_encode's f32 tier is lstm_mma.cuh's encoder on Tf32Mma (the f32 peer
+# context's body): its top-layer h within 1e-5 of the plain version (the
+# "encode" gate), at the crossuser peer encoder's width and at the depths and
+# widths its blocks take apart from it. lstm_seq_states' backward is
+# ss_bwd_kernel's teacher-forced mode in both compute tiers: every output
+# within the backward gates ("rec": 1e-4 of max|plain| in f32; bf16 1e-2 of
+# its bf16 plain version and 6 % of the f32 one, and the floor), fed random
+# upstream dhs_top, dhT and dcT; repeats and permuted batches bit-equal.
+
+
+def _perm(n, seed=0):
+    return torch.randperm(n, generator=torch.Generator().manual_seed(seed)).cuda()
+
+
+@pytest.mark.parametrize("hidden,layers,batch,t", [
+    (128, 1, 4099, 30),  # the crossuser peer encoder (4·B rows), cut in B
+    (64, 1, 1000, 30),   # a peer encoder of ctx_dim 64: 128-row blocks
+    (128, 2, 257, 30), (128, 3, 130, 12),  # c in device memory at 3
+    (32, 1, 300, 12), (256, 1, 129, 12), (128, 8, 40, 5),
+])
+def test_f32_encode_tensor_core_shapes(hidden, layers, batch, t):
+    rng = np.random.default_rng(hidden + layers)
+    ps = _stack(rng, 3, layers, hidden=hidden)
+    xs = _cuda(rng, (batch, t, 3), 0.3)
+    before = _counts([fused_lstm.fused_encode])
+    out = fused_lstm.fused_encode(ps, xs)
+    again = fused_lstm.fused_encode(ps, xs)
+    torch.cuda.synchronize()
+    assert _counts([fused_lstm.fused_encode]) == [(n + 2, m) for n, m in before]
+    assert out.shape == (batch, hidden) and out.dtype == torch.float32
+    _check([out], [[fused_lstm.fused_encode_reference(ps, xs)]], "encode", torch.float32)
+    assert torch.equal(out, again)
+    perm = _perm(batch)
+    assert torch.equal(out[perm], fused_lstm.fused_encode(ps, xs[perm]))
+
+
+def test_f32_encode_refuses_what_it_does_not_take():
+    """hidden not a multiple of 32, and a block of 32 rows past shared
+    memory (the FMA body took it in 8-row blocks): a named ValueError, no
+    launch."""
+    rng = np.random.default_rng(0)
+    before = _counts([fused_lstm.fused_encode])
+    with pytest.raises(ValueError, match="f32 encoder needs hidden % 32 == 0, got 48"):
+        fused_lstm.fused_encode(_stack(rng, 3, 1, hidden=48), _cuda(rng, (4, 5, 3)))
+    wide = [LSTMParams(torch.zeros((2 * 1024, 4096), device="cuda"), torch.zeros(4096, device="cuda"))] * 3
+    wide[0] = LSTMParams(torch.zeros((3 + 1024, 4096), device="cuda"), torch.zeros(4096, device="cuda"))
+    with pytest.raises(ValueError, match="d=3, hidden=1024, layers=3: the f32 encoder's block of 32 rows"):
+        fused_lstm.fused_encode(wide, torch.zeros((2, 2, 3), device="cuda"))
+    assert _counts([fused_lstm.fused_encode]) == before
+
+
+def _bwd_args(batch, layers, seed, t, d, h, rd):
+    """lstm_bwd's arguments: residuals from the forward kernel in ``rd``,
+    random upstream dhs_top, dhT and dcT."""
+    ps, (xs, h0, c0), up = _lstm_case(batch, layers, seed, t=t, d=d, h=h)
+    return ps, c0, lstm_train.lstm_fwd(ps, xs, h0, c0, rd), up
+
+
+@pytest.mark.parametrize("cd", COMPUTE)
+@pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden,layers,d,batch,t", [
+    (128, 1, 3, 4099, 30),   # seq2seq-tf-30's encoder and decoder
+    (128, 2, 3, 300, 100),   # the 10 s encoder (f32 residuals there), cut in B
+    (128, 1, 3, 1031, 30),   # the crossuser peer encoders through lstm_seq, K·B rows
+    (64, 1, 3, 300, 30),     # a peer encoder of ctx_dim 64: 8 warps
+    (128, 2, 67, 257, 30),   # video-fusion's teacher-forced decoder, D = 3 + 64
+    (128, 2, 131, 257, 30),  # the crossuser teacher-forced decoder, D = 3 + 128
+    (128, 3, 3, 65, 12),     # f32: the ring of 2 k-pairs
+    (32, 1, 9, 33, 12),      # one narrow column and one wide n-tile
+])
+def test_lstm_bwd_tensor_core_shapes(hidden, layers, d, batch, t, rd, cd):
+    ps, c0, res, up = _bwd_args(batch, layers, hidden + d, t, d, hidden, rd)
+    assert all(u.abs().max() > 0 for u in up)  # dhs_top, dhT and dcT all nonzero
+    before = _counts([lstm_train.lstm_bwd])
+    out = lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=cd)
+    again = lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert _counts([lstm_train.lstm_bwd]) == [(n + 2 * (cd != BF), m + 2 * (cd == BF)) for n, m in before]
+    assert out[1].shape == (batch, t, d) and out[2].shape == out[3].shape == (layers, batch, hidden)
+    refs = _plains(cd, lambda c: lstm_train._bwd_recurrence_reference(ps, c0, res, *up, c))
+    _check(_flat(out), [_flat(r) for r in refs], "rec", cd)
+    assert all(torch.equal(x, y) for x, y in zip(_flat(out), _flat(again)))
+
+
+@pytest.mark.parametrize("cd", COMPUTE)
+@pytest.mark.parametrize("d", [3, 131])
+def test_lstm_bwd_permuted_batch_gives_the_permuted_answer(d, cd):
+    """Rows are independent and each row's sums run in a fixed order: a
+    permuted batch (across the 32-row blocks) gives the permuted gradients
+    bit for bit."""
+    batch = 300
+    ps, c0, res, (dhs, dhT, dcT) = _bwd_args(batch, 2, 5, 30, d, 128, torch.bfloat16)
+    perm = _perm(batch)
+    res_p = lstm_train.Residuals(*[[x[perm] for x in part] for part in res])
+    full = lstm_train.lstm_bwd(ps, c0, res, dhs, dhT, dcT, cd)
+    cut = lstm_train.lstm_bwd(ps, c0[:, perm], res_p, dhs[perm], dhT[:, perm], dcT[:, perm], cd)
+    assert all(torch.equal(x[perm], y) for x, y in zip(full[0], cut[0]))
+    assert torch.equal(full[1][perm], cut[1])
+    assert torch.equal(full[2][:, perm], cut[2]) and torch.equal(full[3][:, perm], cut[3])
+
+
+def test_lstm_bwd_refuses_what_its_block_does_not_take():
+    """Shapes the FMA backward took and ss_bwd_kernel's teacher-forced mode
+    does not: hidden above 128, an input wider than hidden + 8, an f32 stack
+    of 4 layers; each a ValueError naming it, before any launch."""
+    before = _counts([lstm_train.lstm_bwd])
+    for h, layers, d, cd, match in ((256, 1, 3, torch.float32, "got hidden=256"),
+                                    (128, 1, 137, BF, "got d=137"),
+                                    (128, 4, 3, torch.float32, r"at d=3 \(3 \+ 0 input columns\): layers=4")):
+        ps, c0, res, up = _bwd_args(5, layers, 0, 3, d, h, torch.float32)
+        with pytest.raises(ValueError, match=match):
+            lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=cd)
+    assert _counts([lstm_train.lstm_bwd]) == before
+    ps, c0, res, up = _bwd_args(5, 4, 0, 3, 3, 128, torch.float32)
+    assert lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=BF)[0][0].is_cuda  # bf16 takes 4 layers
 
 
 # ------------------------------------------------------------- conv_resize kernel

@@ -466,3 +466,47 @@ def test_peer_tf32_rows_refuses_what_it_does_not_take():
         fused_lstm.peer_tf32_rows(128, 7, 3, rows=16)
     with pytest.raises(ValueError, match=r"d=20000, ctx_dim=128: one viewer's K = 7 peers need \d+ bytes"):
         fused_lstm.peer_tf32_rows(128, 7, 20000)
+
+
+@pytest.mark.parametrize("hidden,layers,want", [
+    (128, 1, (0, 64, 2, 16, False, True, 103424)),   # the crossuser peer encoder (C = 128), 4·B rows
+    (64, 1, (0, 128, 2, 16, False, True, 108544)),   # a peer encoder of C = 64: 128 rows, as peer_tf32_rows aims
+    (128, 2, (0, 64, 2, 16, False, True, 168960)),
+    (32, 1, (0, 256, 2, 16, False, True, 118784)),
+    (128, 4, (0, 64, 2, 16, False, False, 168960)),  # c in device memory: rows come first
+    (128, 8, (0, 32, 2, 16, False, False, 150016)),
+])
+def test_encode_tf32_rows(hidden, layers, want):
+    """The f32 encoder's block (row 4 on three-pass TF32, the f32 peer
+    context's body): the most rows up to _tc_top's aim, c in shared memory
+    where it fits, W streamed; 16 warps of 32 x 8 tiles; within a block's
+    shared memory, the bytes lstm_mma::smem_bytes counts."""
+    geo = fused_lstm.encode_tf32_rows(hidden, layers, 3)
+    assert geo == fused_lstm.TcGeom(*want)
+    assert geo.smem == fused_lstm._tc_smem(False, geo.rp, geo.rp, 3, hidden, layers, False, geo.c_smem,
+                                           f32=True) <= SMEM
+    tiles = geo.rp * hidden // 256
+    assert -(-tiles // geo.warps) == -(-tiles // 16)
+
+
+def test_encode_tf32_rows_at_the_serving_shape():
+    """stacked-ss-crossuser serves its K = 4 peers through fused_encode:
+    L = 1, H = ctx_dim = 128, d = 3, in the f32 peer context's blocks of 64
+    rows (its 9 viewers' 63 rows, padded) and 16 warps."""
+    from longterm360fov_tpu_torch.config import get_preset
+    m = get_preset("stacked-ss-crossuser").model
+    geo = fused_lstm.encode_tf32_rows(m.ctx_dim, 1, m.d)
+    peer = fused_lstm.peer_tf32_rows(m.ctx_dim, 7, m.d)
+    assert (geo.rp, geo.mt, geo.warps, geo.w_res, geo.c_smem) == (peer.rp, peer.mt, peer.warps, False, True)
+
+
+def test_encode_tf32_rows_refuses_what_it_does_not_take():
+    with pytest.raises(ValueError, match="f32 encoder needs hidden % 32 == 0, got 48"):
+        fused_lstm.encode_tf32_rows(48, 1, 3)
+    with pytest.raises(ValueError, match="f32 encoder takes 1..8 layers, got 9"):
+        fused_lstm.encode_tf32_rows(128, 9, 3)
+    with pytest.raises(ValueError, match="d >= 1 coordinates a token, got d=0"):
+        fused_lstm.encode_tf32_rows(128, 1, 0)
+    with pytest.raises(ValueError, match=r"d=3, hidden=1024, layers=3: the f32 encoder's block of 32 rows .* "
+                                         r"\d+ bytes of shared memory with c in device memory"):
+        fused_lstm.encode_tf32_rows(1024, 3, 3)
