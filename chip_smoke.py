@@ -19,9 +19,11 @@ one line each or more:
    (``lstm_mma.cuh``: ``mma.sync`` bf16), the f32 tiers of the peer context,
    the encoder and the serve kernel (``lstm_mma.cuh``, three-pass TF32; each
    block's shared memory as the library and the chooser count it), every
-   instance of the training backward ``ss_bwd_kernel`` in its three modes
-   (the decoder's static and per-step context, row 5's teacher-forced mode)
-   and of the lockstep peer forward, and both block shapes of both
+   instance of the training backward ``ss_bwd_kernel`` (32- and 16-row
+   blocks, one or two unit blocks a warp) and forward ``train_fwd_kernel``
+   in their three modes (the decoder's static and per-step context, row 5's
+   teacher-forced mode), their blocks at the presets' shapes, at hidden 256
+   and at 8 layers, and the lockstep peer forward, and both block shapes of both
    tiers of the transformer decode (``transformer_decode_mma.cuh``, bf16;
    ``transformer_decode_f32mma.cuh``, three-pass TF32; 64 and 32 rows);
 3. each kernel against its plain PyTorch version at full width (hidden 128),
@@ -155,9 +157,16 @@ one line each or more:
    beside its time before its tensor-core design (``BEFORE``), its bound
    (f32: its products at a third of the dense TF32 peak, the gates' h part,
    exact in TF32 on bf16 residuals, at half of it) beside the FMA units'
-   bound of the same work; row 5's backward alone at the encoder's shape
-   (T = 100, L = 2, f32 residuals) in both compute types against plain and
-   cuDNN's backward data, beside its FMA design's times (``BEFORE``); then
+   bound of the same work; row 5's forward and backward alone at the
+   encoder's shape (T = 100, L = 2, f32 residuals) in both compute types
+   against plain and cuDNN's forward and backward data, beside their FMA
+   designs' times (``BEFORE``); the forwards of phases 5, 7 and 9 alone
+   likewise (``report_redesign``); 9b. one train step of both crossuser
+   presets at hidden 256 (two layers) and at 8 layers of hidden 128, every
+   forward and backward on the kernels (counted), in both compute types and
+   residual types, against plain autograd (f32 compute on f32 residuals)
+   or the CPU port's step (the rounded tiers), within ``STEP_REL_TOL``
+   (``ALIGN_STEP_REL_TOL`` for the lockstep decoder); then
    one line per dW reduction (f32 and
    bf16 compute, phases 5, 7 and 9) with its time beside its time before
    the pack-and-tensor-core design (``BEFORE``), its bound's share of it,
@@ -271,6 +280,7 @@ and last the contract line
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import json
 import math
@@ -312,8 +322,11 @@ ORACLE_TOL = 1e-4  # batcher answers vs the numpy oracle or the CPU plain path, 
 # chunks of 32 k-rows), its context summed in the plain version's order
 ENC_TOL = 1e-5
 # training kernels vs plain: the forward within 1e-5 absolute with f32
-# residuals (exact f32 FMAs in another order; ss_decode's ys too, since its
-# feedback is f32 on both sides); with bf16 residuals the same f32 values
+# residuals (three-pass TF32 products, their operands split to nearest, in
+# chunks of 16 k-rows, in another order than the plain version's f32;
+# ss_decode's ys too, since its feedback is f32 on both sides; at a static
+# context of unit variance about 4e-6, under the plain f32 version's own gap
+# to a float64 loop, scripts/torch_train_fwd_split_probe.py); with bf16 residuals the same f32 values
 # round to bf16, and a 1e-7 difference may cross a rounding boundary, so
 # within one bf16 step (at most 2^-7 of the value). The backward, fed the
 # same residuals, within 1e-4 of max|plain| per output: the reductions sum
@@ -403,7 +416,9 @@ BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_dec
           "aligned_dec_bwd": 19.415, "aligned_dec_bwd_bf16": 19.800, "aligned_peer_fwd": 19.271,
           "aligned_peer_fwd_bf16": 19.159, "fused_encode": 8.650, "fused_encode 262144 rows": 34.230,
           "lstm_seq_states_bwd": 1.327, "lstm_seq_states_bwd_bf16": 1.368, "lstm_seq_states_bwd 10s": 13.9,
-          "lstm_seq_states_bwd_bf16 10s": 14.2}
+          "lstm_seq_states_bwd_bf16 10s": 14.2, "lstm_seq_states_fwd": 0.774, "lstm_seq_states_fwd_bf16": 0.827,
+          "lstm_seq_states_fwd 10s": 9.5, "lstm_seq_states_fwd_bf16 10s": 7.5, "ss_decode_fwd": 3.636,
+          "ss_decode_fwd_bf16": 3.470, "aligned_dec_fwd": 8.648, "aligned_dec_fwd_bf16": 10.696}
 DW_NAMES = [n for n in BEFORE if n.rsplit("_bf16", 1)[0].endswith("_dw")]
 # the cell kernel against lstm_cell: one step, exact f32 FMAs in another order
 # (tests/test_fused_lstm.py's bound for the TPU cell)
@@ -1841,6 +1856,91 @@ def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL, windows_=None, s
     return full, train_d, launches
 
 
+WIDE_STEPS = ((256, 2), (128, 8))  # (hidden, layers): the widest and the deepest the backward takes
+WIDE_ROWS = 32  # windows a step: the references of the rounded tiers run on the CPU
+
+
+def check_wide_steps(dev, smi):
+    """Phase 9b: one train step at hidden 256 (2 layers) and at 8 layers of
+    hidden 128, of both crossuser presets (the encoder and the peer encoders
+    on lstm_seq_states, the decoder on ss_decode or aligned_ss_decode) under
+    train_impl "auto", every forward and backward on the kernels (their
+    launches counted), in both compute types and residual types, with the
+    same coins (drawn from numpy, teacher_prob 0.5) on WIDE_ROWS windows.
+    Loss and gradients relative to max|reference| per leaf: f32 compute on
+    f32 residuals against plain autograd on the card within STEP_REL_TOL
+    (ALIGN_STEP_REL_TOL for the lockstep decoder) at f32; the rounded tiers
+    (bf16 residuals, bf16 compute) against the CPU port's step, the kernels'
+    plain versions under the same autograd functions with the same rounding
+    points (plain autograd rounds nothing), at the bf16 entry; each one's
+    gap to plain autograd is reported beside it (bf16 residuals round every
+    layer's h, c and gates: the gap grows with depth). Then one
+    make_train_step update, finite."""
+    draw = seq2seq.draw_coins
+    out = {}
+
+    def gaps(a, b):
+        (l_a, _), g_a = a
+        (l_b, _), g_b = b
+        return (abs(l_a.item() - l_b.item()) / abs(l_b.item()),
+                max((x.cpu() - y.cpu()).abs().max().item() / (y.abs().max().item() or 1.0)
+                    for x, y in zip(tree_leaves(g_a), tree_leaves(g_b))))
+
+    try:
+        for preset, tol, dec in ((CU_PRESET, STEP_REL_TOL, "ss_decode"), (CU10_PRESET, ALIGN_STEP_REL_TOL,
+                                                                          "aligned_dec")):
+            for hidden, layers in WIDE_STEPS:
+                base = get_preset(preset, batch_size=WIDE_ROWS, steps=2)
+                cfg = base.replace(model=dataclasses.replace(base.model, hidden=hidden, layers=layers))
+                fam = get_family(cfg.model_family)
+                batch = next(train.batch_iterator(synthetic_windows(cfg)[0], WIDE_ROWS, seed=5))
+                coins = torch.from_numpy((np.random.default_rng(hidden + layers).random(
+                    (cfg.model.h_out, WIDE_ROWS, 1)) < 0.5).astype(np.float32))
+                seq2seq.draw_coins = lambda gen, p, t, b, coins=coins: coins.to(gen.device)
+                state = train.init_state(cfg, fam.init, train.make_optimizer(cfg), device=dev)
+                cpu = tree_unflatten(state.params, [p.cpu() for p in tree_leaves(state.params)])
+                plain = train.make_grad_fn(cfg.replace(train_impl="xla"), fam.apply, gc_metric=False,
+                                           extras_fn=family_fns(fam)["extras_fn"])(
+                    state.params, batch, torch.Generator(device=dev), 0.5)
+                for tc in ("float32", "bfloat16"):
+                    c = cfg.replace(train_compute=tc)
+                    sfx = "_bf16" if tc == "bfloat16" else ""
+                    names = [f"lstm_seq_states_fwd{sfx}", f"lstm_seq_states_bwd{sfx}", f"{dec}_fwd{sfx}",
+                             f"{dec}_bwd{sfx}"]
+                    for rd in (F32, BF):
+                        grad_fn = train.make_grad_fn(c, fam.apply, gc_metric=False,
+                                                     **family_fns(fam, residual_dtype=rd))
+                        for wrapper in WRAPPERS.values():
+                            wrapper.launches = 0
+                        got = grad_fn(state.params, batch, torch.Generator(device=dev), 0.5)
+                        torch.cuda.synchronize()
+                        launches = {n: WRAPPERS[n].launches for n in names}
+                        if not all(launches.values()):
+                            raise AssertionError(f"{preset} H={hidden} L={layers} {tc}: a kernel of the step never "
+                                                 f"launched: {launches}")
+                        exact = tc == "float32" and rd == F32
+                        ref = plain if exact else grad_fn(cpu, batch, torch.Generator(), 0.5)
+                        l_err, g_err = gaps(got, ref)
+                        lim = tol["float32" if exact else "bfloat16"]
+                        key = f"{preset} H={hidden} L={layers} {tc} compute, {str(rd)[6:]} residuals"
+                        out[key] = {"reference": "plain autograd" if exact else "the CPU port",
+                                    "loss_rel": l_err, "grad_rel": g_err, "limit": lim,
+                                    "to_plain_autograd": gaps(got, plain), "launches": launches}
+                        if not (l_err <= lim and g_err <= lim):
+                            raise AssertionError(f"{key}: the step through the kernels differs from its reference: "
+                                                 f"loss {l_err:.2e}, grads {g_err:.2e} (tolerance {lim})")
+                    new, _ = train.make_train_step(c, fam.apply, train.make_optimizer(c), gc_metric=False,
+                                                   **family_fns(fam))(state, batch)
+                    if not all(torch.isfinite(p).all() for p in tree_leaves(new.params)):
+                        raise AssertionError(f"{preset} H={hidden} L={layers} {tc}: non-finite params after a step")
+    finally:
+        seq2seq.draw_coins = draw
+    print(f"one train step at hidden 256 (2 layers) and 8 layers (hidden 128), B={WIDE_ROWS}, through the kernels "
+          f"against plain autograd (f32 compute, f32 residuals) or the CPU port's step (the rounded tiers), loss and "
+          f"gradients relative to max|reference| per leaf, and each one's gap to plain autograd ({smi}): "
+          f"{json.dumps(out)}", flush=True)
+
+
 def time_training(cfg, state, train_d, path, smi, plain_iters, kernel_iters=20):
     """The fast train step (the loop's step between logged steps), kernels
     against plain autograd, in turns plain, kernel, kernel, plain."""
@@ -2155,12 +2255,14 @@ def time_lstm_kernels(dev, smi):
     out = {}
     for name, fns in calls.items():
         out[name] = in_turns(fns, {"plain": 3, "kernel": 10, "library": 10})
-        # the backward's dgates · Wᵀ on the tensor cores in three-pass TF32 (ss_bwd_kernel's teacher-forced mode)
+        # the forward's [x, h]·W and the backward's dgates · Wᵀ on the tensor cores in three-pass TF32
+        # (train_fwd_kernel and ss_bwd_kernel in their teacher-forced modes)
         record(name, out[name], flop + (2 * TRAIN_B * 30 * 4 * 128 if name.endswith("dw") else 0), *io[name],
-               peak=TF32X3_FLOPS if name.endswith("bwd") else F32_FLOPS)
+               peak=F32_FLOPS if name.endswith("dw") else TF32X3_FLOPS)
     print(f"lstm_seq_states kernels alone (ms, B={TRAIN_B}, L=1, bf16 residuals, CUDA events; library: "
           f"cuDNN nn.LSTM forward, its backward data, one cuBLAS bmm; {smi}): {json.dumps(out)}", flush=True)
-    report_redesign("lstm_seq_states_bwd", smi, fma_bound=bound(flop, *io["lstm_seq_states_bwd"])[0])
+    for name in ("lstm_seq_states_fwd", "lstm_seq_states_bwd"):
+        report_redesign(name, smi, fma_bound=bound(flop, *io[name])[0])
     bcalls = {
         "lstm_seq_states_fwd_bf16": dict(kernel=lambda: lstm_train.lstm_fwd(ps, xs, h0, c0, rd, BF),
                                          plain=lambda: lstm_train._forward_reference(ps, xs, h0, c0, rd, BF)),
@@ -2177,16 +2279,17 @@ def time_lstm_kernels(dev, smi):
     time_bf16_tier(bcalls, bwork, [ps[0].w], {"plain": 3, "kernel": 10, "f32_kernel": 10, "library": 10},
                    f"lstm_seq_states bf16-compute kernels alone (ms, B={TRAIN_B}, L=1, bf16 residuals, CUDA "
                    f"events, against the f32-compute kernels; library: one cuBLAS bmm on bf16 operands)", smi)
-    report_redesign("lstm_seq_states_bwd_bf16", smi, fma_bound=bound(flop, *io["lstm_seq_states_bwd"])[0],
-                    no_library="none (cuDNN's bf16 LSTM rounds h and c too: another function)")
+    for name in ("lstm_seq_states_fwd_bf16", "lstm_seq_states_bwd_bf16"):
+        report_redesign(name, smi, fma_bound=bound(flop, *io[name[:-5]])[0],
+                        no_library="none (cuDNN's bf16 LSTM rounds h and c too: another function)")
 
 
-def time_lstm_bwd_10s(dev, smi):
-    """Row 5's backward alone at the stacked-ss-crossuser-10s encoder's shape
-    (B = 4096, T = 100, L = 2, f32 residuals, as it trains), in both compute
-    types against its plain versions and cuDNN's backward data (nn.LSTM in
-    f32, TF32 off), in turns; each beside its FMA design's time (BEFORE,
-    PERF.md §5) and its bound."""
+def time_lstm_10s(dev, smi):
+    """Row 5's forward and backward alone at the stacked-ss-crossuser-10s
+    encoder's shape (B = 4096, T = 100, L = 2, f32 residuals, as it
+    trains), in both compute types against their plain versions and cuDNN's
+    forward and backward data (nn.LSTM in f32, TF32 off), in turns; each
+    beside its FMA design's time (BEFORE, PERF.md §5) and its bound."""
     ps, (xs, h0, c0), up = lstm_case(dev, TRAIN_B, 2, seed=12, t=100)
     res = lstm_train.lstm_fwd(ps, xs, h0, c0, F32)
     dg, *rest = lstm_train.lstm_bwd(ps, c0, res, *up)
@@ -2194,13 +2297,29 @@ def time_lstm_bwd_10s(dev, smi):
     x_g = xs.clone().requires_grad_(True)
     h0_g, c0_g = h0.clone().requires_grad_(True), c0.clone().requires_grad_(True)
     y, (hn, cn) = net(x_g, (h0_g, c0_g))
+    flop = stack_flop(TRAIN_B, 100, [3, 128], 128)
+    fwd_io = ([xs, h0, c0, *(t for p in ps for t in p)], res.hs + res.cs + res.gs)
+    with torch.no_grad():
+        ms = in_turns({"plain": lambda: lstm_train._forward_reference(ps, xs, h0, c0, F32),
+                       "kernel": lambda: lstm_train.lstm_fwd(ps, xs, h0, c0, F32),
+                       "bf16_kernel": lambda: lstm_train.lstm_fwd(ps, xs, h0, c0, F32, BF),
+                       "bf16_plain": lambda: lstm_train._forward_reference(ps, xs, h0, c0, F32, BF),
+                       "library": lambda: net(xs, (h0, c0))},
+                      {"plain": 1, "kernel": 5, "bf16_kernel": 5, "bf16_plain": 1, "library": 5})
+    print(f"lstm_seq_states_fwd alone at the 10 s encoder's shape (ms, B={TRAIN_B}, T=100, L=2, f32 residuals, "
+          f"CUDA events, in turns; library: cuDNN nn.LSTM's forward in f32; {smi}): {json.dumps(ms)}", flush=True)
+    for name, key, peak in (("lstm_seq_states_fwd 10s", "kernel", TF32X3_FLOPS),
+                            ("lstm_seq_states_fwd_bf16 10s", "bf16_kernel", BF16_FLOPS)):
+        b_ms, b_by = bound(flop, *fwd_io, peak)
+        report_redesign(name, smi, {"ms": ms[key], "library_ms": ms["library"] if key == "kernel" else None,
+                                    "bound_ms": b_ms, "bound_by": b_by}, fma_bound=bound(flop, *fwd_io)[0],
+                        no_library="none (cuDNN's bf16 LSTM rounds h and c too: another function)")
     fns = {"plain": lambda: lstm_train._bwd_recurrence_reference(ps, c0, res, *up),
            "kernel": lambda: lstm_train.lstm_bwd(ps, c0, res, *up),
            "bf16_kernel": lambda: lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=BF),
            "bf16_plain": lambda: lstm_train._bwd_recurrence_reference(ps, c0, res, *up, BF),
            "library": lambda: torch.autograd.grad((y, hn, cn), (x_g, h0_g, c0_g), up, retain_graph=True)}
     ms = in_turns(fns, {"plain": 1, "kernel": 5, "bf16_kernel": 5, "bf16_plain": 1, "library": 5})
-    flop = stack_flop(TRAIN_B, 100, [3, 128], 128)
     reads, writes = [c0, *up, *(p.w for p in ps), *res.cs, *res.gs], dg + rest
     print(f"lstm_seq_states_bwd alone at the 10 s encoder's shape (ms, B={TRAIN_B}, T=100, L=2, f32 residuals, "
           f"CUDA events, in turns; library: cuDNN nn.LSTM's backward data in f32; {smi}): {json.dumps(ms)}",
@@ -2406,64 +2525,91 @@ def report_lstm_mma(builds):
 
 def report_train_mma(builds):
     """The training recurrences on the tensor cores: every instance of the
-    backward (ss_bwd_kernel<RT, MODE, P, STAGES>: lstm_ss.cu's static
-    context, lstm_align.cu's per-step one, lstm_train.cu's teacher-forced
-    mode, row 5's; the W ring 4 k-pairs deep, or 2 for deeper stacks) and
-    of the lockstep peer forward
+    backward (ss_bwd_kernel<RT, MODE, P, STAGES, MT, UB>: lstm_ss.cu's
+    static context, lstm_align.cu's per-step one, lstm_train.cu's
+    teacher-forced mode, row 5's; 32 rows with the W ring 4 k-pairs deep, or
+    2 for deeper stacks; 16 rows with a ring of 2, a warp of one unit block
+    or, above hidden 128, two), of the forward (train_fwd_kernel<RT, MODE,
+    P>: the same three modes) and of the lockstep peer forward
     (align_peer_fwd_kernel<RT, P, MT>, lstm_mma.cuh's encoder): registers,
     spills and shared memory (ptxas; the dynamic shared memory of the
     training shapes' blocks, from the choosers, which must equal the
     library's) and the count of HMMA instructions in each one's SASS; fails
     if one has none: their products run on mma.sync in both compute tiers."""
     hmma = {}
-    for source, kernel in (("lstm_ss", "ss_bwd_kernel"), ("lstm_align", "ss_bwd_kernel"),
-                           ("lstm_align", "align_peer_fwd_kernel"), ("lstm_train", "ss_bwd_kernel")):
+    for source in ("lstm_ss", "lstm_align", "lstm_train"):
         sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
                                str(builds[source].path)], capture_output=True, text=True, check=True).stdout
         fn = None
         for ln in sass.splitlines():
             if "Function :" in ln:
-                fn = (source, ln.split("Function :")[1].strip()) if kernel in ln else None
+                sym = ln.split("Function :")[1].strip()
+                fn = (source, sym) if any(k in sym for k in ("ss_bwd_kernel", "train_fwd_kernel",
+                                                              "align_peer_fwd_kernel")) else None
                 if fn:
                     hmma[fn] = 0
             elif fn and "HMMA" in ln:
                 hmma[fn] += 1
+    modes = {"0": "static ctx", "1": "step ctx", "2": "teacher-forced"}
     for (source, sym), n in sorted(hmma.items()):
         rt = "bf16" if "I13__nv_bfloat16" in sym.split("kernel")[1][:20] else "f32"
         tier = "bf16" if "Bf16Mma" in sym else "f32 (three-pass TF32)"
         if "align_peer_fwd" in sym:
             name, extra = "align_peer_fwd_kernel", ", MT 1" if "Li1E" in sym else ""
+        elif "train_fwd_kernel" in sym:
+            mode = sym.split("train_fwd_kernelI")[1].split("EN8lstm_mma")[0][-1]  # the MODE argument, Li<m>E
+            name, extra = f"train_fwd_kernel<{modes[mode]}>", ""
         else:
-            mode = sym.split("ss_bwd_kernelI")[1].split("EN8lstm_mma")[0][-1]  # the MODE argument, Li<m>E
-            name = f"ss_bwd_kernel<{({'0': 'static ctx', '1': 'step ctx', '2': 'teacher-forced'})[mode]}>"
-            extra = f", ring {4 if 'Li4EE' in sym else 2}"
+            mode = sym.split("ss_bwd_kernelI")[1].split("EN8lstm_mma")[0][-1]
+            stages, mt, ub = (x.split("E")[0] for x in sym.split("MmaE")[1].split("Li")[1:4])
+            name = f"ss_bwd_kernel<{modes[mode]}>"
+            extra = f", ring {stages}, {16 * int(mt)} rows, {ub} unit block{'s' if ub == '2' else ''} a warp"
         print(f"{source}: {name}<RT {rt}, {tier}{extra}>: {n} HMMA instructions in "
               f"its SASS; {json.dumps(ptxas_resources(source, (sym,)))}", flush=True)
-    ss_lib, al_lib = lstm_ss._library(), lstm_align._library()
+    ss_lib, al_lib, tr_lib = lstm_ss._library(), lstm_align._library(), lstm_train._library()
     blocks = {}
+    out = (ctypes.c_int * 3)()
+
+    def same_bwd(lib_fn, g, *args):
+        smem = lib_fn(*args, out)
+        return smem == g.smem and list(out) == [g.rows, g.warps, g.stages]
+
     for cd in (F32, BF):
-        for name, (c, step) in (("stacked-ss-crossuser", (128, False)), ("stacked-ss-crossuser-10s", (128, True)),
-                                ("video-fusion", (64, False))):
-            g = lstm_ss.bwd_block(128, 2, 3, c, cd, step)
-            if ss_lib.ss_bwd_smem(128, 2, 3, c, int(step), int(cd == BF)) != g.smem:
+        tier = str(cd)[6:]
+        # the decoder backward at the presets' shapes and at the widths and depths taken above them
+        for name, (h, layers, c, step) in (
+                ("stacked-ss-crossuser", (128, 2, 128, False)), ("stacked-ss-crossuser-10s", (128, 2, 128, True)),
+                ("video-fusion", (128, 2, 64, False)), ("H=256 L=2", (256, 2, 128, False)),
+                ("H=128 L=8", (128, 8, 128, True))):
+            g = lstm_ss.bwd_block(h, layers, 3, c, cd, step)
+            if not same_bwd(ss_lib.ss_bwd_smem, g, h, layers, 3, c, int(step), int(cd == BF)):
                 raise AssertionError(f"the decoder backward's block at {name}: the library and bwd_block disagree")
-            blocks[f"ss_bwd {name} {str(cd)[6:]}"] = [g.rows, g.warps, g.stages, g.smem]
+            blocks[f"ss_bwd {name} {tier}"] = [g.rows, g.warps, g.stages, g.smem]
+            f = lstm_train.fwd_block(h, layers, 3, TRAIN_B, cd, ctx_dim=c, mode="step" if step else "static")
+            if ss_lib.ss_fwd_smem(f.rp, 3, c, h, layers, int(f.c_smem), int(step), int(cd == BF)) != f.smem:
+                raise AssertionError(f"the decoder forward's block at {name}: the library and fwd_block disagree")
+            blocks[f"ss_fwd {name} {tier}"] = [f.rp, f.warps, f.c_smem, f.smem]
         g = lstm_align.peer_fwd_block(128, 7, 3, cd)
         if al_lib.align_peer_fwd_smem(3, 128, 7, g.rows_v, g.rp, g.mt, g.warps, int(g.w_res), int(g.c_smem),
                                       int(cd == BF)) != g.smem:
             raise AssertionError("the peer forward's block: the library and peer_fwd_block disagree")
-        blocks[f"peer_fwd K=7 {str(cd)[6:]}"] = [g.rp, g.warps, g.w_res, g.smem]
-        for name, (layers, d) in (("seq2seq-tf-30", (1, 3)), ("crossuser encoder", (2, 3)),
-                                  ("video-fusion teacher-forced decoder", (2, 67))):
-            g = lstm_train.bwd_block(128, layers, d, cd)
+        blocks[f"peer_fwd K=7 {tier}"] = [g.rp, g.warps, g.w_res, g.smem]
+        for name, (h, layers, d) in (("seq2seq-tf-30", (128, 1, 3)), ("crossuser encoder", (128, 2, 3)),
+                                     ("video-fusion teacher-forced decoder", (128, 2, 67)),
+                                     ("H=256 L=2", (256, 2, 3)), ("H=128 L=8", (128, 8, 3))):
+            g = lstm_train.bwd_block(h, layers, d, cd)
             narrow, wide = lstm_train.bwd_split(d)
-            if lstm_train._library().lstm_bwd_smem(128, layers, narrow, wide, int(cd == BF)) != g.smem:
+            if not same_bwd(tr_lib.lstm_bwd_smem, g, h, layers, narrow, wide, int(cd == BF)):
                 raise AssertionError(f"row 5's backward block at {name}: the library and bwd_block disagree")
-            blocks[f"lstm_bwd {name} {str(cd)[6:]}"] = [g.rows, g.warps, g.stages, g.smem]
-    print(f"the training recurrences' blocks at the training shapes (ss_bwd and lstm_bwd: rows, warps, ring "
-          f"stages, bytes of dynamic shared memory; peer_fwd: rows, warps, W resident, bytes): {json.dumps(blocks)}",
-          flush=True)
-    if len(hmma) != 30 or not all(hmma.values()):
+            blocks[f"lstm_bwd {name} {tier}"] = [g.rows, g.warps, g.stages, g.smem]
+            f = lstm_train.fwd_block(h, layers, d, TRAIN_B, cd)
+            if tr_lib.lstm_fwd_smem(f.rp, d, h, layers, int(f.c_smem), int(cd == BF)) != f.smem:
+                raise AssertionError(f"row 5's forward block at {name}: the library and fwd_block disagree")
+            blocks[f"lstm_fwd {name} {tier}"] = [f.rp, f.warps, f.c_smem, f.smem]
+    print(f"the training recurrences' blocks at B={TRAIN_B} (ss_bwd and lstm_bwd: rows, warps, ring stages, bytes "
+          f"of dynamic shared memory; ss_fwd and lstm_fwd: rows, warps, c in shared memory, bytes; peer_fwd: rows, "
+          f"warps, W resident, bytes): {json.dumps(blocks)}", flush=True)
+    if len(hmma) != 66 or not all(hmma.values()):
         raise AssertionError(f"a training recurrence instance has no HMMA instruction, its products off the tensor "
                              f"cores: {hmma}")
 
@@ -2757,7 +2903,8 @@ def time_ss_kernels(dev, smi):
     w = [t for p in ps for t in p]
     res_all = res.hs + res.cs + res.gs
     work = {
-        "ss_decode_fwd": (stack_flop(TRAIN_B, 30, ins, 128) + proj,
+        # the gates on the tensor cores (three-pass TF32), the projection on the FMA units
+        "ss_decode_fwd": ({TF32X3_FLOPS: stack_flop(TRAIN_B, 30, ins, 128), F32_FLOPS: proj},
                           [a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], a["ctx"], a["proj_w"],
                            a["proj_b"], *w], [ys, *res_all]),
         # dgates · Wᵀ on the tensor cores (three-pass TF32), dy · proj_wᵀ on the FMA units
@@ -2802,6 +2949,10 @@ def time_ss_kernels(dev, smi):
                                                           *work["ss_decode_bwd"][1:])[0],
                     no_library="none (feedback)")
     report_redesign("ss_decode_bwd_bf16", smi, no_library="none (feedback)")
+    report_redesign("ss_decode_fwd", smi, fma_bound=bound(flop_of(work["ss_decode_fwd"][0]),
+                                                          *work["ss_decode_fwd"][1:])[0],
+                    no_library="none (feedback)")
+    report_redesign("ss_decode_fwd_bf16", smi, no_library="none (feedback)")
 
 
 def time_aligned_kernels(dev, smi):
@@ -2873,7 +3024,7 @@ def time_aligned_kernels(dev, smi):
         # the gates on the tensor cores (three-pass TF32), the context sum on the FMA units
         "aligned_peer_fwd": ({TF32X3_FLOPS: peer_pass, F32_FLOPS: 2 * rows * t * c}, [pxs, pwt, *peer],
                              [php, pcp, ctx]),
-        "aligned_dec_fwd": (stack_flop(TRAIN_B, t, ins, 128) + proj,
+        "aligned_dec_fwd": ({TF32X3_FLOPS: stack_flop(TRAIN_B, t, ins, 128), F32_FLOPS: proj},
                             [a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], ctx, a["proj_w"],
                              a["proj_b"], *w], [ys, *res_all]),
         "aligned_dec_bwd": ({TF32X3_FLOPS: stack_flop(TRAIN_B, t, ins, 128), F32_FLOPS: proj},
@@ -2933,6 +3084,10 @@ def time_aligned_kernels(dev, smi):
                                                             *work["aligned_dec_bwd"][1:])[0],
                     no_library="none (feedback)")
     report_redesign("aligned_dec_bwd_bf16", smi, no_library="none (feedback)")
+    report_redesign("aligned_dec_fwd", smi, fma_bound=bound(flop_of(work["aligned_dec_fwd"][0]),
+                                                            *work["aligned_dec_fwd"][1:])[0],
+                    no_library="none (feedback)")
+    report_redesign("aligned_dec_fwd_bf16", smi, no_library="none (feedback)")
 
 
 # --------------------------------------------------------------- video-fusion: features
@@ -4135,7 +4290,7 @@ def ptxas_report(log):
 KERNEL_SYMBOLS = ("lstm_dw_pack_kernel", "fused_serve_kernel", "fused_decode_kernel", "lstm_cell_kernel", "peer_context_kernel",
                   "fused_encode_kernel", "encode_tokens_kernel", "ar_decode_kernel", "encode_stash_kernel",
                   "encode_reverse_kernel", "reduce_partials_kernel", "conv_resize_kernel", "lstm_dw_sum_kernel",
-                  "lstm_dw_partial_kernel", "lstm_fwd_kernel", "ss_fwd_kernel", "ss_bwd_kernel",
+                  "lstm_dw_partial_kernel", "train_fwd_kernel", "ss_bwd_kernel",
                   "ss_dw_partial_kernel", "ss_dproj_kernel", "align_peer_fwd_kernel", "align_peer_bwd_kernel",
                   "align_dw_partial_kernel", "align_peer_dw_kernel")
 
@@ -4424,13 +4579,19 @@ def main():
     del step, c10trained
     torch.cuda.empty_cache()
     time_aligned_kernels(dev, smi)
-    time_lstm_bwd_10s(dev, smi)
+    time_lstm_10s(dev, smi)
     report_dw(smi)
     torch.cuda.empty_cache()
     # the bf16 compute type: peers, decoder and (f32 residuals) the encoder
     cu10_train_bf16 = drive_bf16_training(c10tcfg, CU10_TRAIN_BF16, dev, [
         "fused_serve_peers", "peer_context", "lstm_seq_states_fwd_bf16", "lstm_seq_states_bwd_bf16",
         "lstm_seq_states_dw_bf16", "ss_decode_dproj_bf16", "lstm_dw_pack_bf16"], smi, steps=4, rows=256, iters=3)
+    torch.cuda.empty_cache()
+
+    phase("9b train at hidden 256 and at 8 layers")
+    # 9b. the widths and depths the backward takes again: one step of both
+    # crossuser presets at hidden 256 and at 8 layers, through the kernels
+    check_wide_steps(dev, smi)
     torch.cuda.empty_cache()
 
     phase("10 features video-fusion")

@@ -18,9 +18,9 @@
 //     type (the gates are not saved: the backward recomputes them, as the
 //     TPU backward does) and ctx (B, T, C) f32;
 //   * the decoder forward and backward recurrences: lstm_common.cuh's
-//     ss_fwd_kernel and ss_bwd_kernel (the latter on the tensor cores) with
-//     STEP_CTX = true (ctx_t reloaded every step; dctx_t written per step,
-//     not summed over t);
+//     train_fwd_kernel and ss_bwd_kernel (both on the tensor cores) in
+//     their per-step mode, SSB_STEP (ctx_t+1 staged by cp.async during step
+//     t and rounded into z; dctx_t written per step, not summed over t);
 //   * align_peer_bwd_kernel: the peer backward in reverse time, over the
 //     peer rows: dh_k,t = pwt[b, k] · dctx_t + the carried dh; the gates
 //     recomputed from [pxs_t, h_{t-1}] (h_{t-1} read from the residuals, 0 at
@@ -53,16 +53,16 @@
 //     the tensor cores as three-pass TF32 (495 / 3 TFLOP/s: 4.67 ms; with
 //     bf16 residuals the gates' h part, 376 GFLOP, is exact in TF32 and
 //     takes two passes: 3.90 ms; 11.5 ms on the FMA units), or in bf16
-//     (0.78 ms at 989 TFLOP/s); the decoder forward stays exact f32 on the
-//     FMA units (67 TFLOP/s).
+//     (0.78 ms at 989 TFLOP/s); so does the decoder forward (1.31 ms in
+//     three-pass TF32).
 //   * Bytes. bf16 peer residuals are 2C·2 bytes a row-step: 1.5 GB a pass;
 //     the peer dgates (4C f32) 5.9 GB, written once and read once: 1.75 ms
 //     each way at 3.35 TB/s, the bf16 peer backward's bound (2.27 ms with
 //     its residual reads).
-// What the design does about it: lstm_train.cu's tiles for the decoder
-// forward (a thread owns 4 rows x 4 units), every carry on chip, W streamed
-// from L2 with 16-byte loads, and the split above, which gives the peer
-// kernels K times the rows. The peer forward, which in that design took
+// What the design does about it: lstm_train.cu's forward body for the
+// decoder forward (the serve kernel's decoder phase on the tensor cores,
+// every carry on chip, W streamed from L2), and the split above, which
+// gives the peer kernels K times the rows. The peer forward, which in that design took
 // 19.2-19.3 ms, runs the serve tier's peer context body (lstm_mma.cuh),
 // which stores the residual h (from its f32 staging) and c (from the
 // lanes' slots) in 16-byte pieces along whole rows during the publish;
@@ -643,18 +643,19 @@ int align_peer_fwd(const void* pxs, const void* pwt, const void* w, const void* 
 
 // The decoder's recurrences with a per-step context: ctx and dctx (batch,
 // t_len, ctx_dim) f32; otherwise lstm_ss.cu's ss_fwd and ss_bwd.
-int align_dec_fwd(const void* h0, const void* c0, const void* y0,
-                  const void* teacher, const void* coins, const void* ctx,
-                  const void* const* w, const void* const* b,
-                  const void* proj_w, const void* proj_b, void* const* hs,
-                  void* const* cs, void* const* gs, void* ys, int batch,
-                  int t_len, int d, int ctx_dim, int hidden, int layers,
-                  int rows, int bf16, int cbf16, void* stream) {
+int align_dec_fwd(const void* w, const void* const* b, void* const* hs, void* const* cs, void* const* gs,
+                  const void* h0, const void* c0, const void* y0, const void* teacher, const void* coins,
+                  const void* ctx, const void* proj_wt, const void* proj_b, void* ys, void* c_glob, int batch,
+                  int t_len, int d, int ctx_dim, int hidden, int layers, int rp, int warps, int bf16, int cbf16,
+                  void* stream) {
   if (ctx == nullptr || ctx_dim < 1) return (int)cudaErrorInvalidValue;
-  return ss_fwd_launch<true>(h0, c0, y0, teacher, coins, ctx, w, b, proj_w,
-                             proj_b, hs, cs, gs, ys, batch, t_len, d, ctx_dim,
-                             hidden, layers, rows, bf16, cbf16, stream);
+  return ss_fwd_launch<true>(w, b, hs, cs, gs, h0, c0, y0, teacher, coins, ctx, proj_wt, proj_b, ys, c_glob, batch,
+                             t_len, d, ctx_dim, hidden, layers, rp, warps, bf16, cbf16, stream);
 }
+
+// The decoder forward's probe build's sums (-DLSTM_PROBE; LstmPart order,
+// LP_PARTS of them) into out, then zeroed; without LSTM_PROBE, zeros.
+int train_fwd_probe_read(unsigned long long* out) { return probe_read(g_lstm_probe, out); }
 
 int align_dec_bwd(const void* dys, const void* c0, const void* coins, const void* const* wt, const void* w0x,
                   const void* proj_w, const void* const* cs, const void* const* gs, void* const* dg, void* dy,

@@ -3,21 +3,17 @@
 // f32 or bf16:
 //   * Res<RT>, the residual type (f32, or bf16 rounded to nearest even as
 //     torch and XLA cast);
-//   * the compute type CT of compute_type.cuh (cround, ldw4, ldw1): an
-//     activation (h, x, dgates, dy) is kept in f32 and rounded where it
-//     enters a product. Carries, gates, the cell update, residual stores and
-//     the sums db, dproj_b stay f32;
-//   * the thread tile of the forwards: TR = 4 batch rows x TJ = 4 hidden
-//     units per thread, a layer input held k-major (K, R) in shared memory,
-//     and accumulate<NG>, the FMA loop that reads W rows with 16-byte loads
-//     (the peer kernels of lstm_align.cu run on the tensor cores: the peer
-//     forward is lstm_mma.cuh's encoder, the peer backward has its own
-//     tiles);
-//   * fwd_layer_step, one forward layer-step with its residual stores;
-//   * the backward recurrence on the tensor cores (ss_bwd_kernel, both
-//     compute tiers, lstm_mma.cuh's pieces) in its three modes: the
-//     scheduled-sampling decoder's with a static or a per-step context
-//     (lstm_ss.cu, lstm_align.cu) and the teacher-forced LSTM's (lstm_train.cu);
+//   * the compute type CT of compute_type.cuh (cround, ldw1): an activation
+//     (h, x, dgates, dy) is kept in f32 and rounded where it enters a
+//     product. Carries, gates, the cell update, residual stores and the
+//     sums db, dproj_b stay f32;
+//   * the training forward on the tensor cores (train_fwd_kernel, both
+//     compute tiers: lstm_mma.cuh's serve body in a training mode) and the
+//     backward recurrence (ss_bwd_kernel, lstm_mma.cuh's pieces), each in
+//     three modes: the scheduled-sampling decoder's with a static or a
+//     per-step context (lstm_ss.cu, lstm_align.cu) and the teacher-forced
+//     LSTM's (lstm_train.cu); the peer kernels of lstm_align.cu have their
+//     own (the peer forward is lstm_mma.cuh's encoder);
 //   * the cp.async copies (16 and 4 bytes, groups) of the dW products and
 //     the peer backward;
 //   * the deterministic dW/db reduction: lstm_dw_pack_kernel writes each
@@ -44,8 +40,6 @@
 #include "tensor_core.cuh"
 
 #define MAX_LAYERS 8
-#define TR 4        // batch rows per thread
-#define TJ 4        // hidden units per thread: one float4 of each gate
 
 // ---------------------------------------------------------------------------
 // residual type: f32 or bf16 (round to nearest even, as torch and XLA cast)
@@ -64,8 +58,9 @@ struct Res<float> {
     v[2] = x.z;
     v[3] = x.w;
   }
-  static __device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  // a pair of values (units u, u + 1)
+  static __device__ __forceinline__ void st2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
   }
 };
 
@@ -86,138 +81,12 @@ struct Res<__nv_bfloat16> {
     v[2] = hi.x;
     v[3] = hi.y;
   }
-  static __device__ __forceinline__ void st4(__nv_bfloat16* p,
-                                             const float (&v)[4]) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 u;
-    u.x = *reinterpret_cast<const unsigned*>(&lo);
-    u.y = *reinterpret_cast<const unsigned*>(&hi);
-    *reinterpret_cast<uint2*>(p) = u;
+  static __device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
   }
 };
 
 using F = Res<float>;
-
-// acc[g][r][j] += sum_{k<K} z[k][r0 + r] * W[k][g * goff + j0 + j].
-// z is k-major (K, R) in shared memory, so the thread's 4 rows are one
-// float4 (a broadcast: a warp shares its rows), rounded to CT as they enter
-// the product; W (CT) rows are ldw values long.
-template <int NG, typename CT>
-__device__ __forceinline__ void accumulate(float (&acc)[NG][TR][TJ],
-                                           const float* z, int K,
-                                           const CT* __restrict__ W,
-                                           int ldw, int goff, int R, int r0,
-                                           int j0) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[TR];
-    F::ld4(z + k * R + r0, a);
-#pragma unroll
-    for (int r = 0; r < TR; ++r) a[r] = cround<CT>(a[r]);
-    const CT* wk = W + (size_t)k * ldw + j0;
-    float w[NG][TJ];
-#pragma unroll
-    for (int g = 0; g < NG; ++g) ldw4(wk + g * goff, w[g]);
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int r = 0; r < TR; ++r)
-#pragma unroll
-        for (int j = 0; j < TJ; ++j)
-          acc[g][r][j] = fmaf(a[r], w[g][j], acc[g][r][j]);
-  }
-}
-
-// z[k][r0 .. r0 + 3] = v[0 .. 3][j] for the thread's 4 rows: one 16-byte
-// store per k (a k-major column of 4 rows)
-__device__ __forceinline__ void st_rows(float* z, int k, int R, int r0,
-                                        const float (&v)[TR][TJ], int j) {
-  *reinterpret_cast<float4*>(z + k * R + r0) =
-      make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
-}
-
-template <int NG>
-__device__ __forceinline__ void zero(float (&acc)[NG][TR][TJ]) {
-#pragma unroll
-  for (int g = 0; g < NG; ++g)
-#pragma unroll
-    for (int r = 0; r < TR; ++r)
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) acc[g][r][j] = 0.0f;
-}
-
-// h_s[l] and owner-private c_s[l] of the block's rows from (L, B, H) states
-__device__ __forceinline__ void load_states(float* h_s, float* c_s,
-                                            const float* __restrict__ h0,
-                                            const float* __restrict__ c0,
-                                            long long row0, int B, int H,
-                                            int L, int R, int r0, int j0,
-                                            int tid, int nthr) {
-  const int HR = H * R;
-  for (int l = 0; l < L; ++l)
-#pragma unroll
-    for (int r = 0; r < TR; ++r) {
-      const long long row = row0 + r0 + r;
-      float vh[TJ] = {0.0f, 0.0f, 0.0f, 0.0f}, vc[TJ] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (row < B) {
-        F::ld4(h0 + ((size_t)l * B + row) * H + j0, vh);
-        F::ld4(c0 + ((size_t)l * B + row) * H + j0, vc);
-      }
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        h_s[l * HR + (j0 + j) * R + r0 + r] = vh[j];
-        c_s[l * HR + (r * TJ + j) * nthr + tid] = vc[j];
-      }
-    }
-}
-
-// One forward layer-step for the block's R rows: gates = [in, h] @ W + b, the
-// cell update, and the residual stores. in: (k_in, R) layer input; h: (H, R)
-// this layer's hidden state, read and then overwritten; c: this layer's cell
-// state, owner-private [TR * TJ][nthr]. W is in the compute type CT.
-template <typename RT, typename CT>
-__device__ __forceinline__ void fwd_layer_step(
-    const float* in, int k_in, float* h, float* c, const CT* __restrict__ W,
-    const float* __restrict__ bias, RT* hs, RT* cs, RT* gs, long long row0,
-    int B, int T, int t, int H, int R, int r0, int j0, int tid, int nthr) {
-  float acc[4][TR][TJ];
-  zero(acc);
-  accumulate<4>(acc, in, k_in, W, 4 * H, H, R, r0, j0);
-  accumulate<4>(acc, h, H, W + (size_t)k_in * 4 * H, 4 * H, H, R, r0, j0);
-  __syncthreads();  // every thread is done reading h (and in) of this step
-
-  float b[4][TJ];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) F::ld4(bias + g * H + j0, b[g]);
-  float hv[TR][TJ];
-#pragma unroll
-  for (int r = 0; r < TR; ++r) {
-    float gv[4][TJ], cv[TJ];
-#pragma unroll
-    for (int j = 0; j < TJ; ++j) {
-      gv[0][j] = sigmoid_f32(acc[0][r][j] + b[0][j]);
-      gv[1][j] = sigmoid_f32(acc[1][r][j] + b[1][j]);
-      gv[2][j] = tanhf(acc[2][r][j] + b[2][j]);
-      gv[3][j] = sigmoid_f32(acc[3][r][j] + b[3][j]);
-      const int idx = (r * TJ + j) * nthr + tid;
-      cv[j] = gv[1][j] * c[idx] + gv[0][j] * gv[2][j];
-      hv[r][j] = gv[3][j] * tanhf(cv[j]);
-      c[idx] = cv[j];
-    }
-    const long long row = row0 + r0 + r;
-    if (row < B) {
-      const size_t q = (size_t)row * T + t;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) Res<RT>::st4(gs + q * 4 * H + g * H + j0, gv[g]);
-      Res<RT>::st4(cs + q * H + j0, cv);
-      Res<RT>::st4(hs + q * H + j0, hv[r]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < TJ; ++j) st_rows(h, j0 + j, R, r0, hv, j);
-  __syncthreads();  // the new h is visible to the next layer and step
-}
 
 // ---------------------------------------------------------------------------
 // dW / db reduction: a pack pass, then a split-K product on tiles of
@@ -678,102 +547,336 @@ static inline cudaError_t dw_layer(const DwArgs& a, void* zp, float* partial, fl
 
 
 // ---------------------------------------------------------------------------
-// the scheduled-sampling decoder's recurrences (lstm_ss.cu's header says what
-// they compute). STEP_CTX = false: a static context ctx (B, C), written into
-// layer 0's input once, and dctx (B, C) summed over t (lstm_ss.cu);
-// STEP_CTX = true: a per-step context ctx (B, T, C), reloaded every step, and
-// dctx (B, T, C) written per step (the lockstep-peer decoder of
-// lstm_align.cu). A template parameter, so that each instance keeps the
-// registers of its own branch. The weights are in the compute type CT.
+// The training forwards on the tensor cores (train_fwd_kernel), in the three
+// modes of the backward (SsbMode, a template parameter): the teacher-forced
+// LSTM's (SSB_TF: lstm_seq_states' forward, lstm_train.cu) and the
+// scheduled-sampling decoder's with a static context (SSB_STATIC, lstm_ss.cu)
+// or a per-step one (SSB_STEP, the lockstep decoder of lstm_align.cu); both
+// compute tiers (P = lstm_mma::Tf32Mma, three-pass TF32, or Bf16Mma).
+// It is the serve kernel's decoder phase (lstm_mma.cuh server) in a training
+// mode: from given states h0, c0 (L, B, H) (h0 into z, rounded where the
+// tier rounds; c0 into the lanes' slots), T steps of L stacked cells on z =
+// [x_t (padded to whole k-steps) | ctx (padded likewise) | h_0 .. h_L-1] a
+// block row, with the encoders' warp tiles, product and cell; every
+// layer-step's h, c and activated gates i, f, g, o stored in the residual
+// type RT from the cell's registers, (B, T, H) and (B, T, 4H) a layer, as
+// the backward and the dW pack read them. SSB_TF: x_t = xs[b, t] (D up to
+// hidden + 8: the teacher-forced decoder's [x, ctx] rides as its input),
+// staged into z after layer 0 has read x_t-1. The decoder modes: x_t = coin_t
+// > 0 ? teacher_t : y_t-1 (y0 at t = 0), D <= 8; the static context written
+// into z once, or ctx_t+1 by cp.async into an f32 staging buffer during step
+// t's products and rounded into z after layer 0 has read ctx_t (the lockstep
+// serve kernel's route); y_t = h_top · proj_w + proj_b on the FMA units from
+// the staging buffer's h_top (rounded where the tier rounds), written f32 to
+// ys and, with the coin of step t + 1, into z's x columns.
+// What bounds it, what it costs and what the design does about it:
+// lstm_train.cu's header.
 // ---------------------------------------------------------------------------
 
-template <typename CT>
-struct SsFwdArgs {
-  const CT* w[MAX_LAYERS];     // (in_l + H, 4H); layer 0's input is D + C
+enum SsbMode { SSB_STATIC = 0, SSB_STEP = 1, SSB_TF = 2 };
+constexpr int SSB_MAX_D = 8;  // coordinates a token
+// The f32 forward's products: three-pass TF32 with both operands split to
+// nearest (split_round, TFW_ROUND) and chunks of TFW_CHUNK = 2 k8 steps of
+// fresh accumulators. With the serve kernels' truncating split and chunks of
+// 4 the decoder forward leaves the 1e-5 gate at C = 128 (a static context of
+// unit variance); this way its gap to a float64 loop is under the plain f32
+// version's own, for about 7 % more time.
+// scripts/torch_train_fwd_split_probe.py builds the other choices
+// (-DTFW_CHUNK=4, -DTFW_ROUND=0) and reads all four (PERF.md §6, row 6).
+#ifndef TFW_CHUNK
+#define TFW_CHUNK 2
+#endif
+#ifndef TFW_ROUND
+#define TFW_ROUND 1
+#endif
+
+struct TrainFwdArgs {
+  const uint4* w;              // every layer's W packed for the tier (pack_weights_tf32 / pack_weights), layer after layer
   const float* b[MAX_LAYERS];  // (4H,)
   void* hs[MAX_LAYERS];        // (B, T, H) residual type
   void* cs[MAX_LAYERS];        // (B, T, H)
-  void* gs[MAX_LAYERS];        // (B, T, 4H)
-  const CT* proj_w;            // (H, D)
+  void* gs[MAX_LAYERS];        // (B, T, 4H) activated gates i, f, g, o
+  const float* h0;             // (L, B, H)
+  const float* c0;             // (L, B, H)
+  const float* xs;             // SSB_TF: (B, T, D) layer 0's input
+  const float* y0;             // (B, D)
+  const float* teacher;        // (T, B, D)
+  const float* coins;          // (T, B)
+  const float* ctx;            // (B, C), or SSB_STEP (B, T, C); null when C == 0
+  const void* proj_wt;         // (D, H) proj_w transposed, in the compute type
   const float* proj_b;         // (D,)
+  float* ys;                   // (B, T, D)
 };
 
-template <typename RT, bool STEP_CTX, typename CT>
-__global__ void __launch_bounds__(256)
-    ss_fwd_kernel(const float* __restrict__ h0, const float* __restrict__ c0,
-                  const float* __restrict__ y0,
-                  const float* __restrict__ teacher,
-                  const float* __restrict__ coins,
-                  const float* __restrict__ ctx, const SsFwdArgs<CT> a,
-                  float* __restrict__ ys, int B, int T, int D, int C, int H,
-                  int L, int R) {
+// A block's dynamic shared memory, in this order: c (when in shared memory),
+// z, the staging of the new h (E rows of H + 8) and the lockstep mode's
+// ctx_t+1 (rp x C f32).
+template <typename P>
+__host__ __device__ inline long long tfw_smem_bytes(int rp, int d, int c, int h, int layers, bool c_smem, int mode) {
+  constexpr int e = sizeof(typename P::E);
+  long long s = c_smem ? 4LL * layers * rp * h : 0;
+  s += (long long)e * rp * lstm_mma::serve_ldz<P>(d, c, h, layers) + (long long)e * rp * (h + 8);
+  return s + (mode == SSB_STEP ? 4LL * rp * c : 0);
+}
+
+// lstm_mma::cell with the residual stores: the lane's activated gates (q =
+// 0..3: i, f, g, o) and new c (q = 4) of its pairs go to res(row, unit, q,
+// v_unit, v_unit+1), the new h to put(row, unit, h_unit, h_unit+1).
+template <int MT, int UT, typename Bias, typename CGet, typename CSet, typename Put, typename Store>
+__device__ __forceinline__ void cell_res(const float (&acc)[MT][UT][4][4], int r0, int u0, int lane, Bias bias,
+                                         CGet c_get, CSet c_set, Put put, Store res) {
+  const int g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int ut = 0; ut < UT; ++ut) {
+    const int unit = u0 + 8 * ut + 2 * t4;
+    float2 b[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) b[q] = bias(q, unit);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float4 cv = c_get(mt, ut);
+      const float c_old[4] = {cv.x, cv.y, cv.z, cv.w};
+      float v[5][4], h[4];  // the gates and the new c (e = 0..3: rows g, g, g + 8, g + 8 at units 2t, 2t + 1)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[0][e] = sigmoid_f32(acc[mt][ut][0][e] + ((e & 1) ? b[0].y : b[0].x));
+        v[1][e] = sigmoid_f32(acc[mt][ut][1][e] + ((e & 1) ? b[1].y : b[1].x));
+        v[2][e] = tanhf(acc[mt][ut][2][e] + ((e & 1) ? b[2].y : b[2].x));
+        v[3][e] = sigmoid_f32(acc[mt][ut][3][e] + ((e & 1) ? b[3].y : b[3].x));
+        v[4][e] = v[1][e] * c_old[e] + v[0][e] * v[2][e];
+        h[e] = v[3][e] * tanhf(v[4][e]);
+      }
+      c_set(mt, ut, make_float4(v[4][0], v[4][1], v[4][2], v[4][3]));
+      const int row = r0 + 16 * mt + g8;
+      put(row, unit, h[0], h[1]);
+      put(row + 8, unit, h[2], h[3]);
+#pragma unroll
+      for (int q = 0; q < 5; ++q) {
+        res(row, unit, q, v[q][0], v[q][1]);
+        res(row + 8, unit, q, v[q][2], v[q][3]);
+      }
+    }
+  }
+}
+
+template <typename RT, int MODE, typename P>
+__global__ void __launch_bounds__(512)
+    train_fwd_kernel(const TrainFwdArgs a, int B, int T, int D, int C, int H, int L, const lstm_mma::Geom geo) {
+  using namespace lstm_mma;
+  constexpr int MT = 2;
+  using TL = BodyTile<P, MT>;
+  using E = typename P::E;
+  constexpr bool TF = MODE == SSB_TF, STEP_CTX = MODE == SSB_STEP;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int j0 = (tid % (H / TJ)) * TJ;
-  const int r0 = (tid / (H / TJ)) * TR;
-  const int HR = H * R;
-  float* h_s = smem;               // L x (H, R)
-  float* c_s = h_s + L * HR;       // L x owner-private (TR * TJ, nthr)
-  float* x_s = c_s + L * HR;       // (D + C, R) layer-0 input [x_t, ctx]
-  float* y_s = x_s + (D + C) * R;  // (D, R) the fed-back y_{t-1}, f32
-  const long long row0 = (long long)blockIdx.x * R;
+  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int rp = geo.rp, kx = kx_of<P>(D), kxc = kx + ctx_pad<P>(C), ldz = serve_ldz<P>(D, C, H, L), lde = H + 8;
+  const int bands = H / TL::UNITS, tiles = rp / TL::ROWS * bands;
+  const int kstride = kstride_of(H), G = 4 * H;
+  const long long p0 = (long long)blockIdx.x * rp;
+  const int nrows = (int)min((long long)rp, (long long)B - p0);  // the block's rows in the batch
+  LstmProbe pr(g_lstm_probe);
 
-  load_states(h_s, c_s, h0, c0, row0, B, H, L, R, r0, j0, tid, nthr);
-  for (int i = tid; i < R * D; i += nthr) {
-    const int r = i / D, d = i % D;
-    const long long row = row0 + r;
-    y_s[d * R + r] = row < B ? y0[row * D + d] : 0.0f;
+  char* sp = reinterpret_cast<char*>(smem4);
+  float4* cm;
+  if (geo.c_glob) {
+    cm = reinterpret_cast<float4*>(geo.c_glob + (size_t)blockIdx.x * L * rp * H);
+  } else {
+    cm = reinterpret_cast<float4*>(sp);
+    sp += (size_t)4 * L * rp * H;
   }
-  if constexpr (!STEP_CTX) {
-    for (int i = tid; i < R * C; i += nthr) {  // the static context, once
-      const int r = i / C, c = i % C;
-      const long long row = row0 + r;
-      x_s[(D + c) * R + r] = row < B ? ctx[row * C + c] : 0.0f;
+  E* z = reinterpret_cast<E*>(sp);
+  sp += sizeof(E) * rp * ldz;
+  E* est = reinterpret_cast<E*>(sp);  // the new h of a layer-step (rounded in bf16), rows of H + 8
+  sp += sizeof(E) * rp * lde;
+  float* cst = reinterpret_cast<float*>(sp);  // SSB_STEP: ctx_t+1 (rp, C)
+  const E* pwt = static_cast<const E*>(a.proj_wt);  // the decoder modes: proj_w transposed (D, H), from L1
+
+  // x_t (SSB_TF) at element i of the block's rp x D, 0 past the rows
+  auto x_at = [&](int t, int i) {
+    const int r = i / D, d = i - r * D;
+    return r < nrows ? ldg_now(a.xs + ((p0 + r) * T + t) * D + d) : 0.0f;
+  };
+  auto x_put = [&](int i, float v) {
+    const int r = i / D;
+    z[r * ldz + (i - r * D)] = P::cvt(v);
+  };
+  // ctx_t's pieces of 4 columns: piece i is row i / (C / 4), columns 4·(i % (C / 4))..
+  auto ctx_src = [&](int r, int t) {
+    return a.ctx + (STEP_CTX ? ((size_t)(p0 + r) * T + t) * C : (size_t)(p0 + r) * C);
+  };
+  auto ctx_put = [&](int i, float4 v) {
+    const int r = i / (C / 4), c = (i % (C / 4)) * 4;
+    P::put4(z + r * ldz + kx + c, v);
+  };
+  // the decoder's input of step t at row r (< nrows), coordinate d: the
+  // teacher where the coin is up, else the previous output y
+  auto x_dec = [&](int t, int r, int d, float y) {
+    const size_t q = (size_t)t * B + p0 + r;
+    return __ldg(a.coins + q) > 0.0f ? __ldg(a.teacher + q * D + d) : y;
+  };
+
+  for (int i = tid; i < rp * ldz * (int)sizeof(E) / 16; i += nthr)
+    reinterpret_cast<uint4*>(z)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();  // z zeroed before x_0, the context and h0 land in it
+  if constexpr (TF) {
+    for (int i = tid; i < rp * D; i += nthr) x_put(i, x_at(0, i));
+  } else {
+    for (int i = tid; i < nrows * D; i += nthr) {
+      const int r = i / D, d = i - r * D;
+      z[r * ldz + d] = P::cvt(x_dec(0, r, d, __ldg(a.y0 + (p0 + r) * D + d)));
     }
   }
-  __syncthreads();
+  // the static context, or ctx_0
+  for (int i = tid; i < rp * C / 4; i += nthr) {
+    const int r = i / (C / 4);
+    if (r < nrows) ctx_put(i, __ldg(reinterpret_cast<const float4*>(ctx_src(r, 0) + (i % (C / 4)) * 4)));
+  }
+  // h0 (L, B, H) into z's h columns; c0 into the lanes' slots of every tile:
+  // slot (tile tau, mt·UT + ut, lane) of layer l holds rows r0 + 16·mt + g
+  // and + 8, units u0 + 8·ut + 2t and + 1
+  for (int i = tid; i < L * rp * H / 4; i += nthr) {
+    const int l = i / (rp * H / 4), r = i % (rp * H / 4) / (H / 4), u = i % (H / 4) * 4;
+    const float4 v = r < nrows ? __ldg(reinterpret_cast<const float4*>(a.h0 + ((size_t)l * B + p0 + r) * H + u))
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    P::put4(z + r * ldz + kxc + l * H + u, v);
+  }
+  for (int i = tid; i < L * rp * H / 4; i += nthr) {
+    const int l = i / (rp * H / 4), k = i % (rp * H / 4), ln = k % 32, j = k / 32 % (MT * TL::UT);
+    const int tau = k / 32 / (MT * TL::UT), mt = j / TL::UT, ut = j % TL::UT;
+    const int row = tau / bands * TL::ROWS + 16 * mt + (ln >> 2);
+    const int unit = tau % bands * TL::UNITS + 8 * ut + 2 * (ln & 3);
+    const float* src = a.c0 + ((size_t)l * B + p0 + row) * H + unit;
+    const float2 lo = row < nrows ? __ldg(reinterpret_cast<const float2*>(src)) : make_float2(0.0f, 0.0f);
+    const float2 hi = row + 8 < nrows ? __ldg(reinterpret_cast<const float2*>(src + 8 * H)) : make_float2(0.0f, 0.0f);
+    cm[i] = make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  __syncthreads();  // z and c in place
+  pr.mark(LP_STATES);
 
-  const float* h_top = h_s + (L - 1) * HR;
+  // One layer-step of every tile: [za | zb] · W_l + b_l on the tensor cores,
+  // the cell on the accumulators with c from the lanes' slots of layer l;
+  // the new h into est, the residuals out.
+  auto layer_tiles = [&](int l, int t) {
+    const uint4* wl = a.w + (l ? (size_t)((kxc + H) / P::KS + (l - 1) * (2 * H / P::KS)) * kstride : 0);
+    const E* za = l ? z + kxc + (l - 1) * H : z;
+    const E* zb = z + kxc + l * H;
+    const float* bl = a.b[l];
+    RT* const hs = static_cast<RT*>(a.hs[l]);
+    RT* const cs = static_cast<RT*>(a.cs[l]);
+    RT* const gs = static_cast<RT*>(a.gs[l]);
+    float4* cl0 = cm + (size_t)l * rp * H / 4 + lane;
+    for (int tau = warp; tau < tiles; tau += nwarps) {
+      const int r0 = tau / bands * TL::ROWS, u0 = tau % bands * TL::UNITS;
+      float acc[MT][TL::UT][4][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int ut = 0; ut < TL::UT; ++ut)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][ut][q][e] = 0.0f;
+      tile_product<P, MT, TFW_CHUNK, TFW_ROUND>(acc, za + r0 * ldz, (l ? H : kxc) / P::KS, zb + r0 * ldz,
+                                                 H / P::KS, wl + tau % bands * TL::NP * 32 + lane, kstride, ldz,
+                                                 lane);
+      pr.mark(LP_PRODUCTS);
+      float4* cs4 = cl0 + (size_t)tau * MT * TL::UT * 32;
+      cell_res<MT>(
+          acc, r0, u0, lane, [&](int q, int unit) { return __ldg(reinterpret_cast<const float2*>(bl + q * H + unit)); },
+          [&](int mt, int ut) { return cs4[(mt * TL::UT + ut) * 32]; },
+          [&](int mt, int ut, float4 c) { cs4[(mt * TL::UT + ut) * 32] = c; },
+          [&](int row, int unit, float h0, float h1) {
+            P::put2(est + row * lde + unit, h0, h1);
+            if (row < nrows) Res<RT>::st2(hs + ((size_t)(p0 + row) * T + t) * H + unit, h0, h1);
+          },
+          [&](int row, int unit, int q, float v0, float v1) {
+            if (row >= nrows) return;
+            const size_t o = (size_t)(p0 + row) * T + t;
+            Res<RT>::st2(q < 4 ? gs + o * G + q * H + unit : cs + o * H + unit, v0, v1);
+          });
+      pr.mark(LP_CELL);
+    }
+  };
+  // est (the new h of layer l) into z
+  auto publish = [&](int l) {
+    constexpr int EV = 16 / sizeof(E);  // elements a uint4
+    E* zh = z + kxc + l * H;
+    for (int i = tid; i < rp * H / EV; i += nthr) {
+      const int r = i / (H / EV), u = (i % (H / EV)) * EV;
+      *reinterpret_cast<uint4*>(zh + r * ldz + u) = *reinterpret_cast<const uint4*>(est + r * lde + u);
+    }
+  };
+
   for (int t = 0; t < T; ++t) {
-    // x_t = coin_t > 0 ? teacher_t : y_{t-1}
-    for (int i = tid; i < R * D; i += nthr) {
-      const int r = i / D, d = i % D;
-      const long long row = row0 + r;
-      float x = 0.0f;
-      if (row < B) {
-        const size_t q = (size_t)t * B + row;
-        x = coins[q] > 0.0f ? teacher[q * D + d] : y_s[d * R + r];
+    // SSB_TF: the thread's first element of x_t+1, loaded ahead of the products
+    const float xr = TF && t + 1 < T && tid < rp * D ? x_at(t + 1, tid) : 0.0f;
+    if (STEP_CTX && t + 1 < T) {  // ctx_t+1 lands in cst during this step's products
+      for (int i = tid; i < rp * C / 4; i += nthr) {
+        const int r = i / (C / 4);
+        const bool ok = r < nrows;
+        cp_async16(cst + 4 * i, ok ? ctx_src(r, t + 1) + (i % (C / 4)) * 4 : a.ctx, ok);
       }
-      x_s[d * R + r] = x;
+      cp_async_commit();
     }
-    if constexpr (STEP_CTX) {  // this step's context
-      for (int i = tid; i < R * C; i += nthr) {
-        const int r = i / C, c = i % C;
-        const long long row = row0 + r;
-        x_s[(D + c) * R + r] = row < B ? ctx[((size_t)row * T + t) * C + c] : 0.0f;
+    pr.mark(LP_STAGE);
+    for (int l = 0; l < L; ++l) {
+      layer_tiles(l, t);
+      __syncthreads();  // every tile of the layer-step read z; the staging is whole
+      pr.mark(LP_BARRIERS);
+      publish(l);
+      pr.mark(LP_PUBLISH);
+      if (l == 0 && t + 1 < T) {  // layer 0 has read x_t and ctx_t
+        if constexpr (TF) {
+          if (tid < rp * D) x_put(tid, xr);
+          for (int i = tid + nthr; i < rp * D; i += nthr) x_put(i, x_at(t + 1, i));
+        }
+        if constexpr (STEP_CTX) {
+          cp_async_wait<0>();
+          for (int i = tid; i < rp * C / 4; i += nthr) ctx_put(i, *reinterpret_cast<const float4*>(cst + 4 * i));
+        }
+        pr.mark(LP_STAGE);
       }
+      if (!TF && l == L - 1) {
+        // y = h_top · proj_w + proj_b: ys[b, t], and x_t+1 in z. 8 threads a
+        // row: thread part p of row r sums units 32·j + 4·p .. + 3 (j < H /
+        // 32), all D outputs at once, then the 8 parts; the part-0 thread
+        // writes y. Every row of the block, so that whole warps shuffle; rows
+        // past the batch are not written.
+        const int part = tid & 7;
+        for (int r = tid >> 3; r < rp; r += nthr >> 3) {
+          float s[SSB_MAX_D] = {};
+          for (int u = 4 * part; u < H; u += 32) {
+            const float4 hv = P::get4(est + r * lde + u);
+#pragma unroll
+            for (int i = 0; i < SSB_MAX_D; ++i) {
+              if (i < D) {
+                const float4 w = P::get4(pwt + i * H + u);
+                s[i] = fmaf(hv.x, w.x, s[i]);
+                s[i] = fmaf(hv.y, w.y, s[i]);
+                s[i] = fmaf(hv.z, w.z, s[i]);
+                s[i] = fmaf(hv.w, w.w, s[i]);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < SSB_MAX_D; ++i) {
+            if (i < D) {
+              s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
+              s[i] += __shfl_xor_sync(0xffffffffu, s[i], 2);
+              s[i] += __shfl_xor_sync(0xffffffffu, s[i], 4);
+              if (part == 0 && r < nrows) {
+                const float y = s[i] + __ldg(a.proj_b + i);
+                a.ys[((size_t)(p0 + r) * T + t) * D + i] = y;
+                if (t + 1 < T) z[r * ldz + i] = P::cvt(x_dec(t + 1, r, i, y));
+              }
+            }
+          }
+        }
+        pr.mark(LP_FEEDBACK);
+      }
+      __syncthreads();  // z holds this layer's h (x_t+1, ctx_t+1) for the next layer or step
+      pr.mark(LP_BARRIERS);
     }
-    __syncthreads();
-    for (int l = 0; l < L; ++l)
-      fwd_layer_step<RT>(
-          l == 0 ? x_s : h_s + (l - 1) * HR, l == 0 ? D + C : H, h_s + l * HR,
-          c_s + l * HR, a.w[l], a.b[l], static_cast<RT*>(a.hs[l]),
-          static_cast<RT*>(a.cs[l]), static_cast<RT*>(a.gs[l]), row0, B, T, t,
-          H, R, r0, j0, tid, nthr);
-    // y_t = h_top @ proj_w + proj_b from the f32 h (rounded to CT as it
-    // enters the product): written out and fed back in f32
-    for (int i = tid; i < R * D; i += nthr) {
-      const int r = i / D, d = i % D;
-      float y = 0.0f;
-      for (int k = 0; k < H; ++k)
-        y = fmaf(cround<CT>(h_top[k * R + r]), ldw1(a.proj_w + k * D + d), y);
-      y += __ldg(a.proj_b + d);
-      y_s[d * R + r] = y;
-      const long long row = row0 + r;
-      if (row < B) ys[((size_t)row * T + t) * D + d] = y;
-    }
-    __syncthreads();
   }
 }
 
@@ -812,13 +915,20 @@ __global__ void __launch_bounds__(256)
 // block's shared memory holds beside its state: every block reads it from
 // L2 every step.
 // What the design does about it:
-//   * A block holds 32 batch rows (two m16 tiles) in H / 8 warps (16 at H =
-//     128): one wave of 128 blocks at B = 4096. Warp w owns the units 8w ..
-//     8w + 7 of all 32 rows: in the cell (its lanes' (row, unit) pairs in
-//     mma's accumulator layout: rows g, g + 8 of each m-tile, units 2t, 2t +
-//     1) and in the product, whose n-tiles are those units' dh and `above`,
-//     so that the layer below reads `above` from the same warp's registers
-//     and the carried dh, dc stay in lane-private slots of shared memory.
+//   * A block holds 32 batch rows (two m16 tiles, MT = 2) in H / 8 warps (16
+//     at H = 128): one wave of 128 blocks at B = 4096. Warp w owns the units
+//     8w .. 8w + 7 of all 32 rows: in the cell (its lanes' (row, unit) pairs
+//     in mma's accumulator layout: rows g, g + 8 of each m-tile, units 2t,
+//     2t + 1) and in the product, whose n-tiles are those units' dh and
+//     `above`, so that the layer below reads `above` from the same warp's
+//     registers and the carried dh, dc stay in lane-private slots of shared
+//     memory. Where every layer's carries leave no room for 32 rows (8
+//     layers at H = 128), the block holds 16 (MT = 1); above H = 128, where
+//     a warp a unit block would pass 16 warps, a warp owns two (UB = 2: H /
+//     16 warps, 16 rows a block), runs the cell of both and a product of
+//     two n-tiles for each, and adds both blocks' dx partials in its slots.
+//     MT and UB are template parameters, as the ring's depth: the 32-row
+//     instances of one unit block a warp are those of every preset.
 //   * The cell writes dgates f32 to device memory and, rounded where the
 //     tier rounds (bf16), into an A buffer in shared memory (32 rows x 4H,
 //     a 16-byte pad a row: ldmatrix's eight rows on distinct banks); a
@@ -847,7 +957,6 @@ __global__ void __launch_bounds__(256)
 //     at the cell.
 // The probe build (-DSSB_PROBE): thread 0 of every block adds the clock64
 // ticks of each part to g_ssb_probe; ss_bwd_probe_read copies them out.
-enum SsbMode { SSB_STATIC = 0, SSB_STEP = 1, SSB_TF = 2 };
 enum SsbPart {
   SB_LOADS,     // the residuals' loads (where they are not ahead) and `above` (from dy or dhs_top) at the top layer
   SB_CELL,      // the cell backward, the dgates stores (device and shared memory)
@@ -863,9 +972,6 @@ using SsbProbe = ClockProbe<true>;
 using SsbProbe = ClockProbe<false>;
 #endif
 
-constexpr int SSB_ROWS = 32;  // batch rows a block: two m16 tiles
-constexpr int SSB_MAX_D = 8;  // coordinates a token
-
 struct SsBwdArgs {
   const uint4* wt[MAX_LAYERS];  // layer l's Wᵀ packed (pack_bwd_weights), n-tile after n-tile
   const void* w0x;              // layer 0's W[:D] (D, 4H) in the compute type: dx
@@ -880,35 +986,54 @@ struct SsBwdArgs {
   float* dxs;            // (B, T, D + C) layer 0's input gradient
 };
 
-// The block's dynamic shared memory: an A buffer of 32 rows x (4H + a
+// The block's dynamic shared memory: an A buffer of 16·mt rows x (4H + a
 // 16-byte pad) in P::E, the carried dh and dc of every layer (f32), the
-// static context's dctx sums (f32; STEP_CTX: none), dy_t of the rows (32 x
-// SSB_MAX_D f32), the warps' partials of dx (h / 8 warps x 32 x SSB_MAX_D
-// f32) and each warp's ring of W's pieces (stages x 2 n-tiles x 512 bytes).
+// static context's dctx sums (f32; STEP_CTX: none), dy_t of the rows (16·mt
+// x SSB_MAX_D f32), the warps' partials of dx (h / (8·ub) warps x 16·mt x
+// SSB_MAX_D f32) and each warp's ring of W's pieces (stages x 2 n-tiles x
+// 512 bytes).
 template <typename P>
-__host__ __device__ inline long long ssb_smem_bytes(int h, int layers, int c, bool step_ctx, int stages) {
-  return (long long)sizeof(typename P::E) * SSB_ROWS * (4 * h + P::PAD) + 8LL * layers * SSB_ROWS * h +
-         (step_ctx ? 0 : 4LL * SSB_ROWS * c) + 4LL * SSB_ROWS * SSB_MAX_D * (1 + h / 8) + 1024LL * stages * (h / 8);
+__host__ __device__ inline long long ssb_smem_bytes(int h, int layers, int c, bool step_ctx, int stages, int mt = 2,
+                                                    int ub = 1) {
+  const int rows = 16 * mt, warps = h / (8 * ub);
+  return (long long)sizeof(typename P::E) * rows * (4 * h + P::PAD) + 8LL * layers * rows * h +
+         (step_ctx ? 0 : 4LL * rows * c) + 4LL * rows * SSB_MAX_D * (1 + warps) + 1024LL * stages * warps;
 }
 
-// The W ring's depth in k-pairs: 4 (W read 3 k-pairs ahead), or 2 where
-// deeper stacks' carries leave no room for it (f32 at 3 layers, bf16 at 4,
-// at H = C = 128)
+// The block of the backward recurrence (ops/lstm_ss.py bwd_block chooses the
+// same): up to hidden 128 a warp owns one unit block of 8 (hidden / 8 warps,
+// at most 16) and the block 32 rows (mt = 2) with the W ring 4 k-pairs deep
+// (W read 3 k-pairs ahead), or 2 where the carries leave no room for 4;
+// past that, and above hidden 128, where a warp owns two unit blocks (ub =
+// 2: hidden / 16 warps), 16 rows (mt = 1) and a ring of 2. mt = 0: no block
+// fits.
+struct SsbBlock {
+  int mt, ub, stages;
+  long long smem;
+};
 template <typename P>
-__host__ __device__ inline int ssb_stages(int h, int layers, int c, bool step_ctx) {
-  return ssb_smem_bytes<P>(h, layers, c, step_ctx, 4) <= lstm_mma::SMEM_LIMIT ? 4 : 2;
+__host__ __device__ inline SsbBlock ssb_block(int h, int layers, int c, bool step_ctx) {
+  const int ub = h > 128 ? 2 : 1;
+  if (ub == 1)
+    for (int stages = 4; stages >= 2; stages -= 2) {
+      const long long s = ssb_smem_bytes<P>(h, layers, c, step_ctx, stages, 2, 1);
+      if (s <= lstm_mma::SMEM_LIMIT) return {2, 1, stages, s};
+    }
+  const long long s = ssb_smem_bytes<P>(h, layers, c, step_ctx, 2, 1, ub);
+  return s <= lstm_mma::SMEM_LIMIT ? SsbBlock{1, ub, 2, s} : SsbBlock{0, ub, 0, s};
 }
 
-// A warp's partial of dx = dgates · W[:D]ᵀ over its own 32 gate columns (gate
-// q's units 8w .. 8w + 7) for one m-tile, on the tensor cores from the
-// cell's registers: dg[q][hh][j] is the lane's dgates of gate q at row g +
-// 8·hh, unit u + j, which are mma's A fragments in the k order below; the
-// lane's B fragments are W[:D] at row n = g (zero where g >= D: ok), from
-// w0x (D, 4H) in the compute type at w0 = g·4H + u. bf16 (m16n8k16): k16
-// step j covers gates 2j, 2j + 1, k = 2t, 2t + 1 ↔ units u, u + 1 of the
-// first, k = 8 + 2t, .. of the second, rounded to bf16 as the A buffer.
-// f32 (three-pass TF32, m16n8k8): k8 step q is gate q, k = t ↔ unit u, k =
-// t + 4 ↔ unit u + 1. acc: rows g, g + 8 x d = 2t, 2t + 1.
+// A warp's partial of dx = dgates · W[:D]ᵀ over the 32 gate columns of one
+// of its unit blocks (gate q's units u - 2t .. + 7) for one m-tile, added to
+// acc, on the tensor cores from the cell's registers: dg[q][hh][j] is the
+// lane's dgates of gate q at row g + 8·hh, unit u + j, which are mma's A
+// fragments in the k order below; the lane's B fragments are W[:D] at row n
+// = g (zero where g >= D: ok), from w0x (D, 4H) in the compute type at w0 =
+// g·4H + u. bf16 (m16n8k16): k16 step j covers gates 2j, 2j + 1, k = 2t, 2t
+// + 1 ↔ units u, u + 1 of the first, k = 8 + 2t, .. of the second, rounded
+// to bf16 as the A buffer. f32 (three-pass TF32, m16n8k8): k8 step q is gate
+// q, k = t ↔ unit u, k = t + 4 ↔ unit u + 1. acc: rows g, g + 8 x d = 2t, 2t
+// + 1.
 template <typename P>
 __device__ __forceinline__ void dx_partial(float (&acc)[4], const float (&dg)[4][2][2], const void* w0x, bool ok,
                                            size_t w0, int H) {
@@ -975,20 +1100,20 @@ struct ResPair<__nv_bfloat16> {
   }
 };
 
-// acc[n][mt] = A · Wᵀ[:, n-tile n] for the block's 32 rows (mt: rows 16mt ..
-// + 15) over k = 4H: A the dgates buffer `a` (row stride lda, P::E), by
-// ldmatrix; the n-tiles' packed streams wn[n] (plus the lane), 16 bytes a
+// acc[n][mt] = A · Wᵀ[:, n-tile n] for the block's 16·MT rows (mt: rows
+// 16mt .. + 15) over k = 4H: A the dgates buffer `a` (row stride lda, P::E),
+// by ldmatrix; the n-tiles' packed streams wn[n] (plus the lane), 16 bytes a
 // lane a k-pair (two k-steps), each lane's pieces copied by cp.async into
 // its own slots of the warp's ring of S k-pairs in shared memory (`ring`:
 // S x 2 x 32 uint4), S - 1 k-pairs ahead of the mma; a lane reads only
 // what it copied, so its own cp.async.wait_group orders them.
-template <typename P, int NT, int S>
-__device__ __forceinline__ void ssb_product(float (&acc)[NT][2][4], const typename P::E* a, int lda,
+template <typename P, int NT, int S, int MT>
+__device__ __forceinline__ void ssb_product(float (&acc)[NT][MT][4], const typename P::E* a, int lda,
                                             const uint4* const (&wn)[NT], int kpairs, int lane, uint4* ring) {
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][mt][e] = 0.0f;
   auto issue = [&](int kp) {
@@ -1011,11 +1136,11 @@ __device__ __forceinline__ void ssb_product(float (&acc)[NT][2][4], const typena
     const float* ap = a + (lane & 15) * lda + (lane >> 4) * 4;
     // chunks of two k-pairs (4 k8 steps) in fresh accumulators, added to acc
     for (int kp0 = 0; kp0 < kpairs; kp0 += 2) {
-      float c[NT][2][4];
+      float c[NT][MT][4];
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) c[n][mt][e] = 0.0f;
 #pragma unroll
@@ -1032,7 +1157,7 @@ __device__ __forceinline__ void ssb_product(float (&acc)[NT][2][4], const typena
             lstm_mma::split_fast(__uint_as_float(h ? b[n].w : b[n].y), bh[n][1], bl[n][1]);
           }
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
+          for (int mt = 0; mt < MT; ++mt) {
             unsigned r[4], ah[4], al[4];
             ldsm_x4(r, ap + mt * 16 * lda + 8 * (2 * kp + h));
 #pragma unroll
@@ -1052,7 +1177,7 @@ __device__ __forceinline__ void ssb_product(float (&acc)[NT][2][4], const typena
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[n][mt][e] += c[n][mt][e];
     }
@@ -1065,7 +1190,7 @@ __device__ __forceinline__ void ssb_product(float (&acc)[NT][2][4], const typena
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
+        for (int mt = 0; mt < MT; ++mt) {
           unsigned av[4];
           ldsm_x4(av, ap + mt * 16 * lda + 16 * (2 * kp + h));
 #pragma unroll
@@ -1075,7 +1200,9 @@ __device__ __forceinline__ void ssb_product(float (&acc)[NT][2][4], const typena
   }
 }
 
-template <typename RT, int MODE, typename P, int STAGES>
+// MT: m16 tiles of rows a block (rows = 16·MT); UB: unit blocks of 8 a warp
+// (warps = H / (8·UB)). Unit block k of the block is warp k / UB's.
+template <typename RT, int MODE, typename P, int STAGES, int MT, int UB>
 __global__ void __launch_bounds__(512)
     ss_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ c0, const float* __restrict__ coins,
                   const SsBwdArgs a, float* __restrict__ dy, float* __restrict__ dteacher, float* __restrict__ dy0,
@@ -1084,40 +1211,49 @@ __global__ void __launch_bounds__(512)
   using E = typename P::E;
   using CT = std::conditional_t<std::is_same<P, lstm_mma::Tf32Mma>::value, float, __nv_bfloat16>;
   constexpr bool STEP_CTX = MODE != SSB_STATIC, TF = MODE == SSB_TF;
+  constexpr int ROWS = 16 * MT;
   using RP = ResPair<RT>;
   using Raw = typename RP::Raw;
   // the next layer-step's residuals in registers during the bf16 tier's
   // product on bf16 residuals (24 registers; f32 ones would take 48, and
-  // the three-pass product spills beside them)
-  constexpr bool AHEAD = !std::is_same<RT, float>::value && std::is_same<P, lstm_mma::Bf16Mma>::value;
+  // the three-pass product spills beside them); a warp of one unit block only
+  constexpr bool AHEAD =
+      UB == 1 && !std::is_same<RT, float>::value && std::is_same<P, lstm_mma::Bf16Mma>::value;
   extern __shared__ float4 smem4[];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, nw = blockDim.x >> 5;
-  const int g8 = lane >> 2, t4 = lane & 3, u = 8 * w + 2 * t4;  // the lane's units u, u + 1
+  const int g8 = lane >> 2, t4 = lane & 3;
   const int G = 4 * H, lda = G + P::PAD, NB = H / 8, CB = C / 8;
   const int kpairs = G / (2 * P::KS), tile_u4 = kpairs * 32;  // k-pairs of K = 4H; uint4s of a packed n-tile
-  const long long row0 = (long long)blockIdx.x * SSB_ROWS;
+  const int rpw = (ROWS + nw - 1) / nw;                       // rows a warp takes in the feedback
+  const long long row0 = (long long)blockIdx.x * ROWS;
   SsbProbe pr(g_ssb_probe);
 
   char* sp = reinterpret_cast<char*>(smem4);
-  E* const ab = reinterpret_cast<E*>(sp);  // the A buffer of dgates (32, lda)
-  sp += sizeof(E) * SSB_ROWS * lda;
-  float4* dhs = reinterpret_cast<float4*>(sp);  // slot ((l·nw + w)·2 + mt)·32 + lane: the carried dh
-  float4* dcs = dhs + (size_t)L * nw * 64;      // the carried dc
-  sp += (size_t)2 * 16 * L * nw * 64;
-  float4* dsum = reinterpret_cast<float4*>(sp);  // static dctx: slot (ct·2 + mt)·32 + lane of warp ct
-  if (!STEP_CTX) sp += (size_t)16 * CB * 64;
-  float* dys_s = reinterpret_cast<float*>(sp);  // (32, SSB_MAX_D): dy_t of the block's rows
-  sp += (size_t)4 * SSB_ROWS * SSB_MAX_D;
-  float* dxp = reinterpret_cast<float*>(sp);  // (nw, 32, SSB_MAX_D): the warps' partials of dx
-  sp += (size_t)4 * nw * SSB_ROWS * SSB_MAX_D;
+  E* const ab = reinterpret_cast<E*>(sp);  // the A buffer of dgates (ROWS, lda)
+  sp += sizeof(E) * ROWS * lda;
+  // slot ((l·NB + k)·MT + mt)·32 + lane of unit block k (NB = nw·UB): the carried dh
+  float4* dhs = reinterpret_cast<float4*>(sp);
+  float4* dcs = dhs + (size_t)L * nw * UB * MT * 32;  // the carried dc
+  sp += (size_t)2 * 16 * L * nw * UB * MT * 32;
+  float4* dsum = reinterpret_cast<float4*>(sp);  // static dctx: slot (ct·MT + mt)·32 + lane of unit block ct
+  if (!STEP_CTX) sp += (size_t)16 * CB * MT * 32;
+  float* dys_s = reinterpret_cast<float*>(sp);  // (ROWS, SSB_MAX_D): dy_t of the block's rows
+  sp += (size_t)4 * ROWS * SSB_MAX_D;
+  float* dxp = reinterpret_cast<float*>(sp);  // (nw, ROWS, SSB_MAX_D): the warps' partials of dx
+  sp += (size_t)4 * nw * ROWS * SSB_MAX_D;
   uint4* ring = reinterpret_cast<uint4*>(sp) + (size_t)w * STAGES * 64;  // the warp's ring of W's pieces
 
+  // unit block ub of the warp: its index and the lane's units u, u + 1
+  const int u0 = 8 * w * UB + 2 * t4;
+  auto blk = [&](int ub) { return w * UB + ub; };
+  auto unit = [&](int ub) { return u0 + 8 * ub; };
+  auto slot = [&](int l, int k, int mt) { return ((size_t)(l * nw * UB + k) * MT + mt) * 32 + lane; };
   // the lane's rows: 16·mt + 8·hh + g
   auto grow = [&](int mt, int hh) { return row0 + 16 * mt + 8 * hh + g8; };
   // the lane's pairs of f32 rows (row stride ld) of the block, rows g and
-  // g + 8 of m-tile mt, as a float4 in the accumulator layout (zeros past
-  // the batch)
-  auto pairs = [&](const float* src, size_t ld, int mt) {
+  // g + 8 of m-tile mt at units u, u + 1, as a float4 in the accumulator
+  // layout (zeros past the batch)
+  auto pairs = [&](const float* src, size_t ld, int mt, int u) {
     float2 v[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -1129,18 +1265,19 @@ __global__ void __launch_bounds__(512)
   if constexpr (TF) {  // the carries from dhT, dcT into the lanes' own slots
     for (int l = 0; l < L; ++l)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const size_t slot = ((size_t)(l * nw + w) * 2 + mt) * 32 + lane;
-        dhs[slot] = pairs(a.dhT + (size_t)l * B * H, H, mt);
-        dcs[slot] = pairs(a.dcT + (size_t)l * B * H, H, mt);
-      }
+      for (int ub = 0; ub < UB; ++ub)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          dhs[slot(l, blk(ub), mt)] = pairs(a.dhT + (size_t)l * B * H, H, mt, unit(ub));
+          dcs[slot(l, blk(ub), mt)] = pairs(a.dcT + (size_t)l * B * H, H, mt, unit(ub));
+        }
   } else {
-    for (int i = tid; i < 2 * L * nw * 64; i += blockDim.x) dhs[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int i = tid; i < 2 * L * nw * UB * MT * 32; i += blockDim.x) dhs[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   if (!STEP_CTX)
-    for (int i = tid; i < CB * 64; i += blockDim.x) dsum[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int i = tid; i < CB * MT * 32; i += blockDim.x) dsum[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   // dy_{T-1} = dys_{T-1}: the decoder's last output gets no feedback
-  for (int i = tid; i < (TF ? 0 : SSB_ROWS * SSB_MAX_D); i += blockDim.x) {
+  for (int i = tid; i < (TF ? 0 : ROWS * SSB_MAX_D); i += blockDim.x) {
     const int r = i / SSB_MAX_D, d = i % SSB_MAX_D;
     const long long row = row0 + r;
     float v = 0.0f;
@@ -1152,16 +1289,16 @@ __global__ void __launch_bounds__(512)
     dys_s[i] = v;
   }
 
-  // the residuals of layer-step (l, t) for the lane's pairs: gates, c_t,
-  // c_{t-1} (t > 0; c0 is read in the cell)
+  // the residuals of layer-step (l, t) for the lane's pairs at units u, u +
+  // 1: gates, c_t, c_{t-1} (t > 0; c0 is read in the cell)
   struct Ahead {
-    Raw g[4][2][2], ct[2][2], cp[2][2];
+    Raw g[4][MT][2], ct[MT][2], cp[MT][2];
   };
-  auto load = [&](Ahead& r, int l, int t) {
+  auto load = [&](Ahead& r, int l, int t, int u) {
     const RT* gs = static_cast<const RT*>(a.gs[l]);
     const RT* cs = static_cast<const RT*>(a.cs[l]);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const long long row = grow(mt, hh);
@@ -1175,119 +1312,133 @@ __global__ void __launch_bounds__(512)
   };
 
   Ahead res;
-  if (AHEAD) load(res, L - 1, T - 1);
+  if (AHEAD) load(res, L - 1, T - 1, unit(0));
   __syncthreads();  // the slots zeroed, dy_{T-1} in place
-  float4 above[2];  // the gradient at the lane's pairs of this layer's h from above
+  float4 above[UB][MT];  // the gradient at the lane's pairs of this layer's h from above
   pr.mark(SB_LOADS);
   for (int t = T - 1; t >= 0; --t) {
     // the coin of step t and dys_{t-1} at the lane's first (row, d) of the feedback
     float fb_coin = 0.0f, fb_dys = 0.0f;
     if constexpr (!TF) {
-      const int d = lane % SSB_MAX_D;
-      const long long row = row0 + w + nw * (lane / SSB_MAX_D);
-      if (lane < (SSB_ROWS / nw) * SSB_MAX_D && d < D && row < B) {
+      const int d = lane % SSB_MAX_D, r = w + nw * (lane / SSB_MAX_D);
+      const long long row = row0 + r;
+      if (lane < rpw * SSB_MAX_D && r < ROWS && d < D && row < B) {
         fb_coin = lstm_mma::ldg_now(coins + (size_t)t * B + row);
         if (t > 0) fb_dys = lstm_mma::ldg_now(dys + ((size_t)row * T + t - 1) * D + d);
       }
     }
     for (int l = L - 1; l >= 0; --l) {
-      if (TF && l == L - 1) {  // the upstream dhs_top[t]
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) above[mt] = pairs(a.dhs_top + (size_t)t * H, (size_t)T * H, mt);
-      } else if (l == L - 1) {  // dy_t · proj_wᵀ from the f32 dy, rounded to CT as it enters the product
-        const CT* pw = static_cast<const CT*>(a.proj_w);
+      for (int ub = 0; ub < UB; ++ub) {
+        const int u = unit(ub);
+        if (TF && l == L - 1) {  // the upstream dhs_top[t]
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          float v[4];
+          for (int mt = 0; mt < MT; ++mt) above[ub][mt] = pairs(a.dhs_top + (size_t)t * H, (size_t)T * H, mt, u);
+        } else if (l == L - 1) {  // dy_t · proj_wᵀ from the f32 dy, rounded to CT as it enters the product
+          const CT* pw = static_cast<const CT*>(a.proj_w);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float* dyr = dys_s + (16 * mt + 8 * (e >> 1) + g8) * SSB_MAX_D;
-            const CT* pwu = pw + (size_t)(u + (e & 1)) * D;
-            float s = 0.0f;
-            for (int d = 0; d < D; ++d) s = fmaf(cround<CT>(dyr[d]), ldw1(pwu + d), s);
-            v[e] = s;
+          for (int mt = 0; mt < MT; ++mt) {
+            float v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float* dyr = dys_s + (16 * mt + 8 * (e >> 1) + g8) * SSB_MAX_D;
+              const CT* pwu = pw + (size_t)(u + (e & 1)) * D;
+              float s = 0.0f;
+              for (int d = 0; d < D; ++d) s = fmaf(cround<CT>(dyr[d]), ldw1(pwu + d), s);
+              v[e] = s;
+            }
+            above[ub][mt] = make_float4(v[0], v[1], v[2], v[3]);
           }
-          above[mt] = make_float4(v[0], v[1], v[2], v[3]);
         }
       }
-      if (!AHEAD) load(res, l, t);
+      if (!AHEAD && UB == 1) load(res, l, t, unit(0));
       pr.mark(SB_LOADS);
-      // -- the cell backward on the lane's pairs; dgates out and into the A
-      // buffer; at layer 0 the warp's partial of dx over its 32 gate columns
+      // -- the cell backward on the lane's pairs of each unit block; dgates
+      // out and into the A buffer; at layer 0 the warp's partial of dx over
+      // its gate columns
       {
         float* dgo = a.dg[l];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          float4* dh_slot = dhs + ((size_t)(l * nw + w) * 2 + mt) * 32 + lane;
-          float4* dc_slot = dcs + ((size_t)(l * nw + w) * 2 + mt) * 32 + lane;
-          const float4 dh4 = *dh_slot, dc4 = *dc_slot;
-          const float dhv[4] = {dh4.x, dh4.y, dh4.z, dh4.w}, ab4[4] = {above[mt].x, above[mt].y, above[mt].z,
-                                                                        above[mt].w};
-          float dcv[4] = {dc4.x, dc4.y, dc4.z, dc4.w};
-          float dg[4][2][2];  // gate, row g or g + 8, unit u or u + 1
+        for (int ub = 0; ub < UB; ++ub) {
+          const int u = unit(ub);
+          if (!AHEAD && UB > 1) load(res, l, t, u);
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const long long row = grow(mt, hh);
-            float2 gq[4];
+          for (int mt = 0; mt < MT; ++mt) {
+            float4* dh_slot = dhs + slot(l, blk(ub), mt);
+            float4* dc_slot = dcs + slot(l, blk(ub), mt);
+            const float4 dh4 = *dh_slot, dc4 = *dc_slot;
+            const float dhv[4] = {dh4.x, dh4.y, dh4.z, dh4.w};
+            const float ab4[4] = {above[ub][mt].x, above[ub][mt].y, above[ub][mt].z, above[ub][mt].w};
+            float dcv[4] = {dc4.x, dc4.y, dc4.z, dc4.w};
+            float dg[4][2][2];  // gate, row g or g + 8, unit u or u + 1
 #pragma unroll
-            for (int k = 0; k < 4; ++k) gq[k] = RP::wide(res.g[k][mt][hh]);
-            const float2 ct = RP::wide(res.ct[mt][hh]);
-            float2 cp = RP::wide(res.cp[mt][hh]);
-            if (t == 0 && row < B) cp = *reinterpret_cast<const float2*>(c0 + ((size_t)l * B + row) * H + u);
+            for (int hh = 0; hh < 2; ++hh) {
+              const long long row = grow(mt, hh);
+              float2 gq[4];
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int e = 2 * hh + j;
-              const float i_g = j ? gq[0].y : gq[0].x, f_g = j ? gq[1].y : gq[1].x;
-              const float g_g = j ? gq[2].y : gq[2].x, o_g = j ? gq[3].y : gq[3].x;
-              const float c_t = j ? ct.y : ct.x, c_p = j ? cp.y : cp.x;
-              const float dh_total = ab4[e] + dhv[e];
-              const float tanh_c = tanhf(c_t);
-              const float dc_total = dh_total * o_g * (1.0f - tanh_c * tanh_c) + dcv[e];
-              dg[0][hh][j] = dc_total * g_g * i_g * (1.0f - i_g);
-              dg[1][hh][j] = dc_total * c_p * f_g * (1.0f - f_g);
-              dg[2][hh][j] = dc_total * i_g * (1.0f - g_g * g_g);
-              dg[3][hh][j] = dh_total * tanh_c * o_g * (1.0f - o_g);
-              dcv[e] = dc_total * f_g;
+              for (int k = 0; k < 4; ++k) gq[k] = RP::wide(res.g[k][mt][hh]);
+              const float2 ct = RP::wide(res.ct[mt][hh]);
+              float2 cp = RP::wide(res.cp[mt][hh]);
+              if (t == 0 && row < B) cp = *reinterpret_cast<const float2*>(c0 + ((size_t)l * B + row) * H + u);
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int e = 2 * hh + j;
+                const float i_g = j ? gq[0].y : gq[0].x, f_g = j ? gq[1].y : gq[1].x;
+                const float g_g = j ? gq[2].y : gq[2].x, o_g = j ? gq[3].y : gq[3].x;
+                const float c_t = j ? ct.y : ct.x, c_p = j ? cp.y : cp.x;
+                const float dh_total = ab4[e] + dhv[e];
+                const float tanh_c = tanhf(c_t);
+                const float dc_total = dh_total * o_g * (1.0f - tanh_c * tanh_c) + dcv[e];
+                dg[0][hh][j] = dc_total * g_g * i_g * (1.0f - i_g);
+                dg[1][hh][j] = dc_total * c_p * f_g * (1.0f - f_g);
+                dg[2][hh][j] = dc_total * i_g * (1.0f - g_g * g_g);
+                dg[3][hh][j] = dh_total * tanh_c * o_g * (1.0f - o_g);
+                dcv[e] = dc_total * f_g;
+              }
+              const int r = 16 * mt + 8 * hh + g8;
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                P::put2(ab + (size_t)r * lda + k * H + u, dg[k][hh][0], dg[k][hh][1]);
+                if (row < B)
+                  *reinterpret_cast<float2*>(dgo + ((size_t)row * T + t) * G + k * H + u) =
+                      make_float2(dg[k][hh][0], dg[k][hh][1]);
+              }
             }
-            const int r = 16 * mt + 8 * hh + g8;
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              P::put2(ab + (size_t)r * lda + k * H + u, dg[k][hh][0], dg[k][hh][1]);
-              if (row < B)
-                *reinterpret_cast<float2*>(dgo + ((size_t)row * T + t) * G + k * H + u) =
-                    make_float2(dg[k][hh][0], dg[k][hh][1]);
+            *dc_slot = make_float4(dcv[0], dcv[1], dcv[2], dcv[3]);
+            if (l == 0) {  // dx's partial (rows of the m-tile x d = 2t, 2t + 1) into dxp, added to
+                           // the warp's earlier unit blocks' (the lane's own slots)
+              float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              dx_partial<P>(acc, dg, a.w0x, g8 < D, (size_t)g8 * G + u, H);
+              const int r = 16 * mt + g8;
+              float2* lo = reinterpret_cast<float2*>(dxp + ((size_t)w * ROWS + r) * SSB_MAX_D + 2 * t4);
+              float2* hi = reinterpret_cast<float2*>(dxp + ((size_t)w * ROWS + r + 8) * SSB_MAX_D + 2 * t4);
+              if (ub > 0) {
+                const float2 a0 = *lo, a1 = *hi;
+                acc[0] += a0.x, acc[1] += a0.y, acc[2] += a1.x, acc[3] += a1.y;
+              }
+              *lo = make_float2(acc[0], acc[1]);
+              *hi = make_float2(acc[2], acc[3]);
             }
-          }
-          *dc_slot = make_float4(dcv[0], dcv[1], dcv[2], dcv[3]);
-          if (l == 0) {  // dx's partial (rows of the m-tile x d = 2t, 2t + 1) into dxp
-            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            dx_partial<P>(acc, dg, a.w0x, g8 < D, (size_t)g8 * G + u, H);
-            const int r = 16 * mt + g8;
-            *reinterpret_cast<float2*>(dxp + ((size_t)w * SSB_ROWS + r) * SSB_MAX_D + 2 * t4) =
-                make_float2(acc[0], acc[1]);
-            *reinterpret_cast<float2*>(dxp + ((size_t)w * SSB_ROWS + r + 8) * SSB_MAX_D + 2 * t4) =
-                make_float2(acc[2], acc[3]);
           }
         }
       }
       pr.mark(SB_CELL);
       __syncthreads();  // the A buffer is whole
       pr.mark(SB_BARRIERS);
-      if (AHEAD && (l > 0 || t > 0)) load(res, l > 0 ? l - 1 : L - 1, l > 0 ? t : t - 1);
+      if (AHEAD && (l > 0 || t > 0)) load(res, l > 0 ? l - 1 : L - 1, l > 0 ? t : t - 1, unit(0));
       // -- dgates · Wᵀ: the warp's n-tiles, then what each feeds
       const uint4* wl = a.wt[l] + lane;
-      auto epilogue = [&](int id, const float (&v)[2][4]) {
-        if (id < NB) {  // the carried dh of the warp's units, for step t - 1
+      auto epilogue = [&](int id, int ub, const float (&v)[MT][4]) {
+        if (id < NB) {  // the carried dh of unit block id, for step t - 1
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            dhs[((size_t)(l * nw + w) * 2 + mt) * 32 + lane] = make_float4(v[mt][0], v[mt][1], v[mt][2], v[mt][3]);
+          for (int mt = 0; mt < MT; ++mt) dhs[slot(l, id, mt)] = make_float4(v[mt][0], v[mt][1], v[mt][2], v[mt][3]);
         } else if (l > 0) {  // `above` of layer l - 1 at the same pairs
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) above[mt] = make_float4(v[mt][0], v[mt][1], v[mt][2], v[mt][3]);
+          for (int mt = 0; mt < MT; ++mt) above[ub][mt] = make_float4(v[mt][0], v[mt][1], v[mt][2], v[mt][3]);
         } else {  // dctx of context columns 8·ct .. (TF: dxs' columns D + 8·ct ..)
           const int ct = id - NB;
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
+          for (int mt = 0; mt < MT; ++mt) {
             if constexpr (TF) {  // rows of D + C floats: no pair is 8-byte aligned for every D
 #pragma unroll
               for (int hh = 0; hh < 2; ++hh) {
@@ -1307,7 +1458,7 @@ __global__ void __launch_bounds__(512)
                       make_float2(v[mt][2 * hh], v[mt][2 * hh + 1]);
               }
             } else {
-              float4& sm = dsum[((size_t)ct * 2 + mt) * 32 + lane];
+              float4& sm = dsum[((size_t)ct * MT + mt) * 32 + lane];
               sm = make_float4(sm.x + v[mt][0], sm.y + v[mt][1], sm.z + v[mt][2], sm.w + v[mt][3]);
             }
           }
@@ -1318,12 +1469,12 @@ __global__ void __launch_bounds__(512)
         // dteacher_t and the feedback into dy_{t-1} (dy0 at t = 0): lane
         // i·8 + d of warp w takes row w + nw·i, coordinate d, its coin and
         // dys_{t-1} loaded ahead
-        for (int j = lane, first = 1; j < (SSB_ROWS / nw) * SSB_MAX_D; j += 32, first = 0) {
+        for (int j = lane, first = 1; j < rpw * SSB_MAX_D; j += 32, first = 0) {
           const int d = j % SSB_MAX_D, r = w + nw * (j / SSB_MAX_D);
           const long long row = row0 + r;
-          if (d >= D) continue;
+          if (d >= D || r >= ROWS) continue;
           float dx = 0.0f;
-          for (int v = 0; v < nw; ++v) dx += dxp[((size_t)v * SSB_ROWS + r) * SSB_MAX_D + d];
+          for (int v = 0; v < nw; ++v) dx += dxp[((size_t)v * ROWS + r) * SSB_MAX_D + d];
           if constexpr (TF) {
             if (row < B) a.dxs[((size_t)row * T + t) * (D + C) + d] = dx;
             continue;
@@ -1346,26 +1497,29 @@ __global__ void __launch_bounds__(512)
         }
         pr.mark(SB_EPILOGUE);
       }
-      // the warp's n-tiles: its dh, then `above` (l > 0) or its dctx tile
-      const int id1 = l > 0 || w < CB ? NB + w : -1;
-      // the product of NT n-tiles through the warp's ring
+      // each unit block's n-tiles: its dh, then `above` (l > 0) or its dctx
+      // tile, the product of NT n-tiles through the warp's ring
       auto product = [&](auto& acc, const auto& wn) {
         constexpr int NT = std::extent<std::remove_reference_t<decltype(wn)>>::value;
-        ssb_product<P, NT, STAGES>(acc, ab, lda, wn, kpairs, lane, ring);
+        ssb_product<P, NT, STAGES, MT>(acc, ab, lda, wn, kpairs, lane, ring);
       };
-      if (id1 >= 0) {
-        float acc[2][2][4];
-        const uint4* const wn[2] = {wl + (size_t)w * tile_u4, wl + (size_t)id1 * tile_u4};
-        product(acc, wn);
-        pr.mark(SB_PRODUCTS);
-        epilogue(w, acc[0]);
-        epilogue(id1, acc[1]);
-      } else {
-        float acc[1][2][4];
-        const uint4* const wn[1] = {wl + (size_t)w * tile_u4};
-        product(acc, wn);
-        pr.mark(SB_PRODUCTS);
-        epilogue(w, acc[0]);
+#pragma unroll
+      for (int ub = 0; ub < UB; ++ub) {
+        const int k = blk(ub), id1 = l > 0 || k < CB ? NB + k : -1;
+        if (id1 >= 0) {
+          float acc[2][MT][4];
+          const uint4* const wn[2] = {wl + (size_t)k * tile_u4, wl + (size_t)id1 * tile_u4};
+          product(acc, wn);
+          pr.mark(SB_PRODUCTS);
+          epilogue(k, ub, acc[0]);
+          epilogue(id1, ub, acc[1]);
+        } else {
+          float acc[1][MT][4];
+          const uint4* const wn[1] = {wl + (size_t)k * tile_u4};
+          product(acc, wn);
+          pr.mark(SB_PRODUCTS);
+          epilogue(k, ub, acc[0]);
+        }
       }
       pr.mark(SB_EPILOGUE);
       __syncthreads();  // every warp has read the A buffer before the next cell writes it
@@ -1380,28 +1534,34 @@ __global__ void __launch_bounds__(512)
   // dh0, dc0 from the slots; the static context's dctx from its sums
   for (int l = 0; l < L; ++l)
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const size_t slot = ((size_t)(l * nw + w) * 2 + mt) * 32 + lane;
-      const float4 vh = dhs[slot], vc = dcs[slot];
+    for (int ub = 0; ub < UB; ++ub)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const long long row = grow(mt, hh);
-        if (row >= B) continue;
-        const size_t o = ((size_t)l * B + row) * H + u;
-        *reinterpret_cast<float2*>(dh0 + o) = hh ? make_float2(vh.z, vh.w) : make_float2(vh.x, vh.y);
-        *reinterpret_cast<float2*>(dc0 + o) = hh ? make_float2(vc.z, vc.w) : make_float2(vc.x, vc.y);
+      for (int mt = 0; mt < MT; ++mt) {
+        const float4 vh = dhs[slot(l, blk(ub), mt)], vc = dcs[slot(l, blk(ub), mt)];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const long long row = grow(mt, hh);
+          if (row >= B) continue;
+          const size_t o = ((size_t)l * B + row) * H + unit(ub);
+          *reinterpret_cast<float2*>(dh0 + o) = hh ? make_float2(vh.z, vh.w) : make_float2(vh.x, vh.y);
+          *reinterpret_cast<float2*>(dc0 + o) = hh ? make_float2(vc.z, vc.w) : make_float2(vc.x, vc.y);
+        }
       }
-    }
-  if (!STEP_CTX && w < CB)
+  if (!STEP_CTX)
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const float4 v = dsum[((size_t)w * 2 + mt) * 32 + lane];
+    for (int ub = 0; ub < UB; ++ub) {
+      const int k = blk(ub);
+      if (k >= CB) continue;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const long long row = grow(mt, hh);
-        if (row < B)
-          *reinterpret_cast<float2*>(dctx + (size_t)row * C + 8 * w + 2 * t4) =
-              hh ? make_float2(v.z, v.w) : make_float2(v.x, v.y);
+      for (int mt = 0; mt < MT; ++mt) {
+        const float4 v = dsum[((size_t)k * MT + mt) * 32 + lane];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const long long row = grow(mt, hh);
+          if (row < B)
+            *reinterpret_cast<float2*>(dctx + (size_t)row * C + 8 * k + 2 * t4) =
+                hh ? make_float2(v.z, v.w) : make_float2(v.x, v.y);
+        }
       }
     }
 }
@@ -1410,13 +1570,6 @@ __global__ void __launch_bounds__(512)
 // launches shared by the C interfaces of lstm_ss.cu and lstm_align.cu; each
 // returns cudaGetLastError() (0 = ok)
 // ---------------------------------------------------------------------------
-
-static inline bool ss_bad_shape(int batch, int t_len, int d, int ctx_dim, int hidden,
-                         int layers, int rows) {
-  return layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
-         rows < TR || rows % TR || batch < 1 || t_len < 1 || d < 1 ||
-         ctx_dim < 0 || ctx_dim % 4 || (rows / TR) * (hidden / TJ) > 256;
-}
 
 // Launch `kernel` with `smem` bytes of dynamic shared memory (above 48 KB
 // only after the attribute is raised) → cudaGetLastError().
@@ -1430,87 +1583,118 @@ static int launch_with_smem(Kernel kernel, int grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// The launches with the weights in the compute type CT and the residuals in
-// RT (bf16 != 0: bf16).
-template <bool STEP_CTX, typename CT>
-static int ss_fwd_go(const float* h0, const float* c0, const float* y0,
-                     const float* teacher, const float* coins, const float* ctx,
-                     const void* const* w, const void* const* b,
-                     const void* proj_w, const void* proj_b, void* const* hs,
-                     void* const* cs, void* const* gs, float* ys, int batch,
-                     int t_len, int d, int ctx_dim, int hidden, int layers,
-                     int rows, int bf16, cudaStream_t st) {
-  SsFwdArgs<CT> a;
-  for (int l = 0; l < MAX_LAYERS; ++l) {
-    const bool on = l < layers;
-    a.w[l] = on ? static_cast<const CT*>(w[l]) : nullptr;
-    a.b[l] = on ? static_cast<const float*>(b[l]) : nullptr;
-    a.hs[l] = on ? hs[l] : nullptr;
-    a.cs[l] = on ? cs[l] : nullptr;
-    a.gs[l] = on ? gs[l] : nullptr;
-  }
-  a.proj_w = static_cast<const CT*>(proj_w);
-  a.proj_b = static_cast<const float*>(proj_b);
-  const size_t smem =
-      ((size_t)2 * layers * hidden + 2 * d + ctx_dim) * rows * sizeof(float);
-  const int threads = (rows / TR) * (hidden / TJ);
-  const int grid = (batch + rows - 1) / rows;
-  if (bf16)
-    return launch_with_smem(ss_fwd_kernel<__nv_bfloat16, STEP_CTX, CT>, grid,
-                            threads, smem, st, h0, c0, y0, teacher, coins, ctx,
-                            a, ys, batch, t_len, d, ctx_dim, hidden, layers,
-                            rows);
-  return launch_with_smem(ss_fwd_kernel<float, STEP_CTX, CT>, grid, threads,
-                          smem, st, h0, c0, y0, teacher, coins, ctx, a, ys,
-                          batch, t_len, d, ctx_dim, hidden, layers, rows);
+// The training forward (train_fwd_kernel) in mode MODE: a block of rp rows
+// (32 or 64: whole 32-row warp tiles) and `warps` warps (at most 16), c in
+// shared memory or, where c_glob is given, in c_glob (grid x layers x rp x
+// hidden floats), as ops/lstm_train.py fwd_block chooses; hidden a multiple
+// of 32 up to 256, 1..8 layers; SSB_TF: d >= 1 input columns, no context;
+// the decoder modes: d <= 8, ctx_dim a multiple of 4. Returns
+// cudaGetLastError() (0 = ok); an invalid value for a block it does not take.
+static inline long long train_fwd_smem(int rp, int d, int ctx_dim, int hidden, int layers, bool c_smem, int mode,
+                                       int cbf16) {
+  return cbf16 ? tfw_smem_bytes<lstm_mma::Bf16Mma>(rp, d, ctx_dim, hidden, layers, c_smem, mode)
+               : tfw_smem_bytes<lstm_mma::Tf32Mma>(rp, d, ctx_dim, hidden, layers, c_smem, mode);
 }
 
-// rows: batch rows per block, a multiple of 4. The block has (rows / 4) *
-// (hidden / 4) threads and (2 * layers * hidden + 2 * d + ctx_dim) * rows
-// floats of dynamic shared memory. coins (t_len, batch), teacher (t_len,
-// batch, d); ctx (batch, ctx_dim) or, STEP_CTX, (batch, t_len, ctx_dim); null
-// when ctx_dim == 0. w and proj_w are bf16 when cbf16 (the bf16 compute
-// type), else f32.
-template <bool STEP_CTX>
-static int ss_fwd_launch(const void* h0, const void* c0, const void* y0,
-                         const void* teacher, const void* coins,
-                         const void* ctx, const void* const* w,
-                         const void* const* b, const void* proj_w,
-                         const void* proj_b, void* const* hs, void* const* cs,
-                         void* const* gs, void* ys, int batch, int t_len,
-                         int d, int ctx_dim, int hidden, int layers, int rows,
-                         int bf16, int cbf16, void* stream) {
-  if (ss_bad_shape(batch, t_len, d, ctx_dim, hidden, layers, rows))
+static inline bool train_fwd_bad_shape(int batch, int t_len, int d, int ctx_dim, int hidden, int layers, int rp,
+                                       int warps, bool c_smem, int mode, int cbf16) {
+  return layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden > 256 || hidden % 32 || batch < 1 ||
+         t_len < 1 || d < 1 || (mode != SSB_TF && d > SSB_MAX_D) || ctx_dim < 0 || ctx_dim % 4 ||
+         (mode == SSB_TF && ctx_dim) || (rp != 32 && rp != 64) || warps < 1 || warps > 16 ||
+         (long long)batch * t_len >= (1LL << 31) ||
+         train_fwd_smem(rp, d, ctx_dim, hidden, layers, c_smem, mode, cbf16) > lstm_mma::SMEM_LIMIT;
+}
+
+template <int MODE>
+static int train_fwd_go(const TrainFwdArgs& a, void* c_glob, int batch, int t_len, int d, int ctx_dim, int hidden,
+                        int layers, int rp, int warps, int bf16, int cbf16, void* stream) {
+  const bool c_smem = c_glob == nullptr;
+  if (train_fwd_bad_shape(batch, t_len, d, ctx_dim, hidden, layers, rp, warps, c_smem, MODE, cbf16))
     return (int)cudaErrorInvalidValue;
-  const auto go = cbf16 ? &ss_fwd_go<STEP_CTX, __nv_bfloat16> : &ss_fwd_go<STEP_CTX, float>;
-  return go(static_cast<const float*>(h0), static_cast<const float*>(c0),
-            static_cast<const float*>(y0), static_cast<const float*>(teacher),
-            static_cast<const float*>(coins), static_cast<const float*>(ctx), w,
-            b, proj_w, proj_b, hs, cs, gs, static_cast<float*>(ys), batch, t_len,
-            d, ctx_dim, hidden, layers, rows, bf16,
-            static_cast<cudaStream_t>(stream));
+  const long long smem = train_fwd_smem(rp, d, ctx_dim, hidden, layers, c_smem, MODE, cbf16);
+  const lstm_mma::Geom geo{rp, 2, 0, static_cast<float*>(c_glob)};
+  const int grid = (batch + rp - 1) / rp;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TFW(RT, P)                                                                                            \
+  launch_with_smem(train_fwd_kernel<RT, MODE, P>, grid, 32 * warps, (size_t)smem, st, a, batch, t_len, d, ctx_dim, \
+                   hidden, layers, geo)
+  using BF = __nv_bfloat16;
+  if (bf16 && cbf16) return TFW(BF, lstm_mma::Bf16Mma);
+  if (bf16) return TFW(BF, lstm_mma::Tf32Mma);
+  if (cbf16) return TFW(float, lstm_mma::Bf16Mma);
+  return TFW(float, lstm_mma::Tf32Mma);
+#undef TFW
 }
 
-// The backward recurrence (ss_bwd_kernel): 32 batch rows a block of
-// hidden / 8 warps (hidden a multiple of 32 up to 128), ss_bwd_smem_bytes of
-// dynamic shared memory with W rings of ssb_stages k-pairs. wt: every
-// layer's Wᵀ packed for the tier (ops/lstm_ss.py pack_bwd_weights; f32, or
-// bf16 when cbf16); w0x layer 0's W[:d] and proj_w in the tier's type;
-// ctx_dim a multiple of 8 up to hidden (the dctx n-tiles, one a warp), d <=
-// 8. dctx is (batch, ctx_dim) or, STEP_CTX, (batch, t_len, ctx_dim). The
-// teacher-forced mode takes the same shapes, with d the narrow and ctx_dim
-// the wide columns of layer 0's input.
+// The training forward's arguments: W packed, every layer's pointers, the
+// states; the mode's own pointers are set by the caller.
+static inline TrainFwdArgs train_fwd_args(const void* w, const void* const* b, void* const* hs, void* const* cs,
+                                          void* const* gs, const void* h0, const void* c0, int layers) {
+  TrainFwdArgs a = {};
+  a.w = static_cast<const uint4*>(w);
+  for (int l = 0; l < std::min(layers, MAX_LAYERS); ++l) {
+    a.b[l] = static_cast<const float*>(b[l]);
+    a.hs[l] = hs[l];
+    a.cs[l] = cs[l];
+    a.gs[l] = gs[l];
+  }
+  a.h0 = static_cast<const float*>(h0);
+  a.c0 = static_cast<const float*>(c0);
+  return a;
+}
+
+// The scheduled-sampling decoder's forward (a static context, or STEP_CTX a
+// per-step one): coins (t_len, batch), teacher (t_len, batch, d), y0 (batch,
+// d), ctx (batch, ctx_dim) or (batch, t_len, ctx_dim) (null when ctx_dim ==
+// 0), proj_wt (d, hidden) proj_w transposed in the compute type → ys (batch,
+// t_len, d) f32 and the residuals.
+template <bool STEP_CTX>
+static int ss_fwd_launch(const void* w, const void* const* b, void* const* hs, void* const* cs, void* const* gs,
+                         const void* h0, const void* c0, const void* y0, const void* teacher, const void* coins,
+                         const void* ctx, const void* proj_wt, const void* proj_b, void* ys, void* c_glob, int batch,
+                         int t_len, int d, int ctx_dim, int hidden, int layers, int rp, int warps, int bf16,
+                         int cbf16, void* stream) {
+  TrainFwdArgs a = train_fwd_args(w, b, hs, cs, gs, h0, c0, layers);
+  a.y0 = static_cast<const float*>(y0);
+  a.teacher = static_cast<const float*>(teacher);
+  a.coins = static_cast<const float*>(coins);
+  a.ctx = static_cast<const float*>(ctx);
+  a.proj_wt = proj_wt;
+  a.proj_b = static_cast<const float*>(proj_b);
+  a.ys = static_cast<float*>(ys);
+  if (ctx_dim > 0 && ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return train_fwd_go<STEP_CTX ? SSB_STEP : SSB_STATIC>(a, c_glob, batch, t_len, d, ctx_dim, hidden, layers, rp,
+                                                        warps, bf16, cbf16, stream);
+}
+
+// The backward recurrence (ss_bwd_kernel): its block from ssb_block (32 or
+// 16 batch rows, hidden / 8 or hidden / 16 warps; hidden a multiple of 32 up
+// to 256) with W rings of its depth; wt: every layer's Wᵀ packed for the
+// tier (ops/lstm_ss.py pack_bwd_weights; f32, or bf16 when cbf16); w0x
+// layer 0's W[:d] and proj_w in the tier's type; ctx_dim a multiple of 8 up
+// to hidden (the dctx n-tiles, one a unit block), d <= 8. dctx is (batch,
+// ctx_dim) or, STEP_CTX, (batch, t_len, ctx_dim). The teacher-forced mode
+// takes the same shapes, with d the narrow and ctx_dim the wide columns of
+// layer 0's input.
 static inline bool ss_bwd_bad_shape(int batch, int t_len, int d, int ctx_dim, int hidden, int layers) {
-  return layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden > 128 || hidden % 32 || batch < 1 ||
+  return layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden > 256 || hidden % 32 || batch < 1 ||
          t_len < 1 || d < 1 || d > SSB_MAX_D || ctx_dim < 0 || ctx_dim % 8 || ctx_dim > hidden ||
          (long long)batch * t_len >= (1LL << 31);
 }
 
-// ss_bwd_kernel's dynamic shared memory at its ring depth (ssb_stages); the
-// teacher-forced mode's is that of a per-step context (step_ctx)
-template <typename P>
-static inline long long ss_bwd_smem_bytes(int hidden, int layers, int ctx_dim, bool step_ctx) {
-  return ssb_smem_bytes<P>(hidden, layers, ctx_dim, step_ctx, ssb_stages<P>(hidden, layers, ctx_dim, step_ctx));
+// ss_bwd_kernel's block (ssb_block) in the tier; the teacher-forced mode's
+// is that of a per-step context (step_ctx)
+static inline SsbBlock ss_bwd_block(int hidden, int layers, int ctx_dim, bool step_ctx, int cbf16) {
+  return cbf16 ? ssb_block<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, step_ctx)
+               : ssb_block<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, step_ctx);
+}
+
+// ss_bwd_kernel's dynamic shared memory at its block, -1 for a shape it
+// does not take
+static inline long long ss_bwd_smem(int d, int ctx_dim, int hidden, int layers, bool step_ctx, int cbf16) {
+  if (ss_bwd_bad_shape(1, 1, d, ctx_dim, hidden, layers)) return -1;
+  const SsbBlock g = ss_bwd_block(hidden, layers, ctx_dim, step_ctx, cbf16);
+  return g.mt ? g.smem : -1;
 }
 
 // The kernel's per-layer pointers, w0x and proj_w (null in the
@@ -1538,21 +1722,22 @@ static int ss_bwd_go(const SsBwdArgs& a, const void* dys, const void* c0, const 
                      int ctx_dim, int hidden, int layers, int bf16, int cbf16, void* stream) {
   constexpr bool STEP_CTX = MODE != SSB_STATIC;
   if (ss_bwd_bad_shape(batch, t_len, d, ctx_dim, hidden, layers)) return (int)cudaErrorInvalidValue;
-  const long long smem = cbf16 ? ss_bwd_smem_bytes<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, STEP_CTX)
-                               : ss_bwd_smem_bytes<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, STEP_CTX);
-  if (smem > lstm_mma::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  const bool deep = (cbf16 ? ssb_stages<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, STEP_CTX)
-                           : ssb_stages<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, STEP_CTX)) == 4;
-  const int grid = (batch + SSB_ROWS - 1) / SSB_ROWS, threads = 32 * (hidden / 8);
+  const SsbBlock g = ss_bwd_block(hidden, layers, ctx_dim, STEP_CTX, cbf16);
+  if (g.mt == 0) return (int)cudaErrorInvalidValue;
+  const int grid = (batch + 16 * g.mt - 1) / (16 * g.mt), threads = 32 * (hidden / (8 * g.ub));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float *f_dys = static_cast<const float*>(dys), *f_c0 = static_cast<const float*>(c0),
               *f_coins = static_cast<const float*>(coins);
   float *o_dy = static_cast<float*>(dy), *o_dt = static_cast<float*>(dteacher), *o_dy0 = static_cast<float*>(dy0),
         *o_dh0 = static_cast<float*>(dh0), *o_dc0 = static_cast<float*>(dc0), *o_dctx = static_cast<float*>(dctx);
-#define SSB_AT(RT, P, S)                                                                                         \
-  launch_with_smem(ss_bwd_kernel<RT, MODE, P, S>, grid, threads, (size_t)smem, st, f_dys, f_c0, f_coins, a,       \
-                   o_dy, o_dt, o_dy0, o_dh0, o_dc0, o_dctx, batch, t_len, d, ctx_dim, hidden, layers)
-#define SSB(RT, P) (deep ? SSB_AT(RT, P, 4) : SSB_AT(RT, P, 2))
+#define SSB_AT(RT, P, S, MT, UB)                                                                                 \
+  launch_with_smem(ss_bwd_kernel<RT, MODE, P, S, MT, UB>, grid, threads, (size_t)g.smem, st, f_dys, f_c0,       \
+                   f_coins, a, o_dy, o_dt, o_dy0, o_dh0, o_dc0, o_dctx, batch, t_len, d, ctx_dim, hidden, layers)
+  // the instances: 32 rows with rings of 4 or 2; 16 rows with a ring of 2, a
+  // warp of one or two unit blocks
+#define SSB(RT, P)                                                                                  \
+  (g.mt == 2 ? (g.stages == 4 ? SSB_AT(RT, P, 4, 2, 1) : SSB_AT(RT, P, 2, 2, 1))                   \
+             : (g.ub == 1 ? SSB_AT(RT, P, 2, 1, 1) : SSB_AT(RT, P, 2, 1, 2)))
   using BF = __nv_bfloat16;
   if (bf16 && cbf16) return SSB(BF, lstm_mma::Bf16Mma);
   if (bf16) return SSB(BF, lstm_mma::Tf32Mma);

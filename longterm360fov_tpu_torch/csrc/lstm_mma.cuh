@@ -273,6 +273,16 @@ __device__ __forceinline__ void split_fast(float x, unsigned& hi, unsigned& lo) 
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
+// x → (hi, lo) rounded to nearest: hi = x rounded to TF32 (half an ulp of
+// TF32 added to the bits, then the 13 low mantissa bits cleared: ties away
+// from zero), lo = x - hi (exact) rounded likewise; hi + lo keeps 22 bits of
+// x to nearest, where split_fast's truncations keep 21 to within 2^-20.
+// Two integer adds a value more than split_fast.
+__device__ __forceinline__ void split_round(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
 // 16 bytes of packed W from device memory through the read-only path
 __device__ __forceinline__ uint4 ldg_u4(const uint4* p) { return __ldg(p); }
 
@@ -280,12 +290,19 @@ __device__ __forceinline__ uint4 ldg_u4(const uint4* p) { return __ldg(p); }
 // in three-pass TF32: A by ldsm_x4 from z as TF32 fragments and split in
 // registers; B from device memory as packed (w: the tile's first pair of
 // the first k-step, plus the lane; kstride uint4s a k-step), two k8 steps
-// ahead of its mma, split after the load; each chunk of CHUNK k8 steps
-// summed in fresh accumulators, then added to sum.
-template <int MT, int CHUNK, int UT>
+// ahead of its mma, split after the load (split_fast; ROUND: split_round);
+// each chunk of CHUNK k8 steps summed in fresh accumulators, then added to
+// sum.
+template <int MT, int CHUNK, int UT, bool ROUND = false>
 __device__ __forceinline__ void product_tf32(float (&sum)[MT][UT][4][4], const float* za, int ks_a,
                                              const float* zb, int ks_b, const uint4* __restrict__ w, int kstride,
                                              int ldz, int lane) {
+  auto split = [](float x, unsigned& hi, unsigned& lo) {
+    if constexpr (ROUND)
+      split_round(x, hi, lo);
+    else
+      split_fast(x, hi, lo);
+  };
   using TL = Tile<MT, UT>;
   constexpr int NP = TL::NP;
   const int arow = (lane & 15) * ldz + (lane >> 4) * 4;
@@ -304,14 +321,14 @@ __device__ __forceinline__ void product_tf32(float (&sum)[MT][UT][4][4], const f
       const float v[4] = {__uint_as_float(b[p].x), __uint_as_float(b[p].y), __uint_as_float(b[p].z),
                           __uint_as_float(b[p].w)};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split_fast(v[e], bh[p][e], bl[p][e]);
+      for (int e = 0; e < 4; ++e) split(v[e], bh[p][e], bl[p][e]);
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       unsigned r[4], ah[4], al[4];
       ldsm_x4(r, ap + mt * 16 * ldz);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split_fast(__uint_as_float(r[e]), ah[e], al[e]);
+      for (int e = 0; e < 4; ++e) split(__uint_as_float(r[e]), ah[e], al[e]);
       // the passes a_lo·b_hi, a_hi·b_lo, a_hi·b_hi, each over the m-tile's
       // n-tiles: 2·NP independent sums between dependent mma
 #pragma unroll
@@ -371,13 +388,14 @@ __device__ __forceinline__ void product_tf32(float (&sum)[MT][UT][4][4], const f
 template <typename P, int MT, bool STEP_CTX = false>
 using BodyTile = Tile<MT, std::is_same<P, Tf32Mma>::value && !STEP_CTX ? 1 : 4 / MT>;
 
-// the tier's product of a tile: bf16 (product) or three-pass TF32 (product_tf32 in chunks of CHUNK k8 steps)
-template <typename P, int MT, int CHUNK = TF32_CHUNK, int UT>
+// the tier's product of a tile: bf16 (product) or three-pass TF32 (product_tf32 in chunks of CHUNK k8 steps,
+// its operands split by split_fast or, ROUND, split_round)
+template <typename P, int MT, int CHUNK = TF32_CHUNK, bool ROUND = false, int UT>
 __device__ __forceinline__ void tile_product(float (&acc)[MT][UT][4][4], const typename P::E* za, int ks_a,
                                              const typename P::E* zb, int ks_b, const uint4* w, int kstride, int ldz,
                                              int lane) {
   if constexpr (std::is_same<P, Tf32Mma>::value)
-    product_tf32<MT, CHUNK>(acc, za, ks_a, zb, ks_b, w, kstride, ldz, lane);
+    product_tf32<MT, CHUNK, UT, ROUND>(acc, za, ks_a, zb, ks_b, w, kstride, ldz, lane);
   else
     product<MT>(acc, za, ks_a, zb, ks_b, w, kstride, ldz, lane);
 }

@@ -7,12 +7,13 @@
 // The two recurrences live in lstm_common.cuh, whose per-step-context
 // instances lstm_align.cu launches; this file launches the static-context
 // ones (STEP_CTX = false):
-//   * ss_fwd_kernel: T decoder steps from (h0, c0) (L, B, H) and y0 (B, D).
-//     Step t feeds layer 0 [x_t, ctx] with x_t = coin_t > 0 ? teacher_t :
-//     y_{t-1} (y_{-1} = y0), runs L stacked cells and projects
-//     y_t = h_top · proj_w + proj_b from the f32 h, which is fed back. It
-//     writes ys (B, T, D) f32 and, per layer, h, c (B, T, H) and the gates
-//     i, f, g, o (B, T, 4H) in the residual type.
+//   * train_fwd_kernel (the scheduled-sampling modes): T decoder steps from
+//     (h0, c0) (L, B, H) and y0 (B, D), on the tensor cores. Step t feeds
+//     layer 0 [x_t, ctx] with x_t = coin_t > 0 ? teacher_t : y_{t-1}
+//     (y_{-1} = y0), runs L stacked cells and projects y_t = h_top · proj_w
+//     + proj_b from h_top as the tier rounds it, which is fed back. It writes
+//     ys (B, T, D) f32 and, per layer, h, c (B, T, H) and the gates i, f, g,
+//     o (B, T, 4H) in the residual type.
 //   * ss_bwd_kernel: the backward recurrence in reverse time, on the tensor
 //     cores (lstm_common.cuh's header says how). The total gradient of y_t
 //     is the upstream dys_t plus the feedback from step t+1; the top layer's
@@ -42,24 +43,21 @@
 // (B = 4096, T = 30, D = 3, C = 128, H = 128, L = 2):
 //   * Arithmetic. A pass is 2·B·T·((D + C + H) + 2H)·4H = 64.8 GFLOP (the
 //     forward's gate products; the backward's dgates · Wᵀ; the dW
-//     reduction), exact f32 on the FMA units (67 TFLOP/s): at least 0.97 ms
-//     each; the backward's on the tensor cores, 0.39 ms in three-pass TF32
-//     at 495 / 3 TFLOP/s. The projection and its gradient are 2·B·T·H·D,
-//     under 1 %.
+//     reduction): 0.39 ms in three-pass TF32 at 495 / 3 TFLOP/s (the
+//     recurrences), 0.97 ms on the FMA units (the f32 dW). The projection
+//     and its gradient are 2·B·T·H·D, under 1 %.
 //   * Bytes. bf16 residuals are 6H·2 bytes per layer and row-step: 377 MB a
-//     pass, and dgates (4H f32) 503 MB, 0.1-0.3 ms at 3.35 TB/s: under the
-//     FMA time.
+//     pass, and dgates (4H f32) 503 MB, 0.1-0.3 ms at 3.35 TB/s.
 //   * The serial chain. Step t - 1 of the backward cannot start before layer
 //     0 of step t has produced dx, so the feedback runs through every layer
 //     of every step, and the dy · proj_wᵀ term sits on that path.
-// What the design does about it: for the forward, lstm_train.cu's tiles (a
-// thread owns 4 rows x 4 hidden units, a block 16 rows: 256 blocks of 128
-// threads at B = 4096, two per SM), every carry on chip (h, c, the feedback
-// y in shared memory), W streamed from L2 with 16-byte loads; the feedback
-// and projection are D = 3 wide and ride in the same block. The backward is
-// lstm_common.cuh's tensor-core body (32-row blocks of 16 warps, carries in
-// shared memory, W packed once a call and streamed through each warp's
-// ring).
+// What the design does about it: the forward is lstm_train.cu's (the serve
+// kernel's decoder body, lstm_common.cuh train_fwd_kernel): every carry on
+// chip, the static context written into z once, the feedback and the
+// projection (D = 3 wide) in the same block on the FMA units, W streamed
+// from L2. The backward is lstm_common.cuh's tensor-core body (32-row blocks
+// of 16 warps, carries in shared memory, W packed once a call and streamed
+// through each warp's ring).
 
 #include "lstm_common.cuh"
 
@@ -194,16 +192,26 @@ extern "C" {
 // arguments, block shapes and shared memory). ctx and dctx are (batch,
 // ctx_dim), null when ctx_dim == 0. bf16: residuals in bf16; cbf16: the bf16
 // compute type, whose weights arrive in bf16.
-int ss_fwd(const void* h0, const void* c0, const void* y0, const void* teacher,
-           const void* coins, const void* ctx, const void* const* w,
-           const void* const* b, const void* proj_w, const void* proj_b,
-           void* const* hs, void* const* cs, void* const* gs, void* ys,
-           int batch, int t_len, int d, int ctx_dim, int hidden, int layers,
-           int rows, int bf16, int cbf16, void* stream) {
-  return ss_fwd_launch<false>(h0, c0, y0, teacher, coins, ctx, w, b, proj_w,
-                              proj_b, hs, cs, gs, ys, batch, t_len, d, ctx_dim,
-                              hidden, layers, rows, bf16, cbf16, stream);
+int ss_fwd(const void* w, const void* const* b, void* const* hs, void* const* cs, void* const* gs, const void* h0,
+           const void* c0, const void* y0, const void* teacher, const void* coins, const void* ctx,
+           const void* proj_wt, const void* proj_b, void* ys, void* c_glob, int batch, int t_len, int d, int ctx_dim,
+           int hidden, int layers, int rp, int warps, int bf16, int cbf16, void* stream) {
+  return ss_fwd_launch<false>(w, b, hs, cs, gs, h0, c0, y0, teacher, coins, ctx, proj_wt, proj_b, ys, c_glob, batch,
+                              t_len, d, ctx_dim, hidden, layers, rp, warps, bf16, cbf16, stream);
 }
+
+// The forward's dynamic shared memory at a block of rp rows, c in shared
+// memory (c_smem) or not, per step (step_ctx) or static context; -1 for a
+// block it does not take
+long long ss_fwd_smem(int rp, int d, int ctx_dim, int hidden, int layers, int c_smem, int step_ctx, int cbf16) {
+  const int mode = step_ctx ? SSB_STEP : SSB_STATIC;
+  if (train_fwd_bad_shape(1, 1, d, ctx_dim, hidden, layers, rp, 1, c_smem != 0, mode, cbf16)) return -1;
+  return train_fwd_smem(rp, d, ctx_dim, hidden, layers, c_smem != 0, mode, cbf16);
+}
+
+// The forward's probe build's sums (-DLSTM_PROBE; LstmPart order, LP_PARTS
+// of them) into out, then zeroed; without LSTM_PROBE, zeros.
+int train_fwd_probe_read(unsigned long long* out) { return probe_read(g_lstm_probe, out); }
 
 int ss_bwd(const void* dys, const void* c0, const void* coins, const void* const* wt, const void* w0x,
            const void* proj_w, const void* const* cs, const void* const* gs, void* const* dg, void* dy,
@@ -213,13 +221,14 @@ int ss_bwd(const void* dys, const void* c0, const void* coins, const void* const
                               t_len, d, ctx_dim, hidden, layers, bf16, cbf16, stream);
 }
 
-// The backward recurrence's dynamic shared memory (ss_bwd_smem_bytes, at
-// the ring depth the launcher picks) in the tier (cbf16: bf16), per step
-// (step_ctx) or static context; -1 for a shape it does not take.
-long long ss_bwd_smem(int hidden, int layers, int d, int ctx_dim, int step_ctx, int cbf16) {
-  if (ss_bwd_bad_shape(1, 1, d, ctx_dim, hidden, layers)) return -1;
-  return cbf16 ? ss_bwd_smem_bytes<lstm_mma::Bf16Mma>(hidden, layers, ctx_dim, step_ctx != 0)
-               : ss_bwd_smem_bytes<lstm_mma::Tf32Mma>(hidden, layers, ctx_dim, step_ctx != 0);
+// The backward recurrence's dynamic shared memory (ssb_smem_bytes at the
+// block ssb_block picks) in the tier (cbf16: bf16), per step (step_ctx) or
+// static context; -1 for a shape it does not take. Its block (rows, warps, W
+// ring depth) into out.
+long long ss_bwd_smem(int hidden, int layers, int d, int ctx_dim, int step_ctx, int cbf16, int* out) {
+  const SsbBlock g = ss_bwd_block(hidden, layers, ctx_dim, step_ctx != 0, cbf16);
+  out[0] = 16 * g.mt, out[1] = hidden / (8 * g.ub), out[2] = g.stages;
+  return ss_bwd_smem(d, ctx_dim, hidden, layers, step_ctx != 0, cbf16);
 }
 
 int ss_dw(const void* h0, const void* y0, const void* teacher,

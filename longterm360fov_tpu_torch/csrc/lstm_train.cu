@@ -4,9 +4,11 @@
 // Replaces the TPU Pallas kernels of
 //   longterm360fov_tpu/ops/lstm_train.py::lstm_seq_states
 // (_fwd_kernel and _bwd_kernel under a jax.custom_vjp) with three kernels:
-//   * lstm_fwd_kernel: the forward recurrence over T steps and L layers from
-//     (h0, c0). It saves per layer h, c (B, T, H) and the post-activation
-//     gates i, f, g, o (B, T, 4H) in the residual type. Carries stay f32.
+//   * the forward recurrence over T steps and L layers from (h0, c0):
+//     lstm_common.cuh's train_fwd_kernel in its teacher-forced mode
+//     (SSB_TF), on the tensor cores. It saves per layer h, c (B, T, H) and
+//     the post-activation gates i, f, g, o (B, T, 4H) in the residual type.
+//     Carries stay f32.
 //   * the backward recurrence in reverse time: lstm_common.cuh's
 //     ss_bwd_kernel in its teacher-forced mode (SSB_TF), on the tensor
 //     cores. Per layer, top-down, it forms dgates = [di, df, dg, do] from the
@@ -30,52 +32,53 @@
 // rounds both operands of each product to bf16 and sums in f32: the gate
 // products [x, h]·W, dgates·Wᵀ, the dW sums zᵀ·dgates; db sums the unrounded
 // dgates, and carries, gates, residuals and dgates in device memory stay f32
-// or the residual type (lstm_common.cuh, cround). W is read as bf16 that the
-// wrapper rounded once per call, half the bytes from L2. The forward's
-// products still run on the FMA units (the operands widened to f32), so it
-// is no faster than f32; the backward and the dW sums run on the tensor
-// cores. Every tensor is read and written batch-major, (B, T, ·), as the
-// caller holds it: no time-major copies.
+// or the residual type (lstm_common.cuh, cround). The f32 tier's products
+// run on the tensor cores as three-pass TF32 (lstm_mma.cuh product_tf32),
+// the forward's with both operands split to nearest (split_round). Every
+// tensor is read and written batch-major, (B, T, ·), as the caller holds
+// it: no time-major copies.
 //
 // What bounds them on the card, at seq2seq-tf-30's training shapes
 // (B = 4096, T = 30, D = 3, H = 128, L = 1):
 //   * Arithmetic. The forward is 2·B·T·(D+H)·4H = 16.5 GFLOP per pass, the
 //     backward recurrence 16.1 GFLOP (dgates·Wᵀ) and the dW reduction
-//     16.5 GFLOP. On the FMA units (67 TFLOP/s peak) that is at least
-//     0.25 ms each; the backward in three-pass TF32 (495 / 3 TFLOP/s) 0.10
-//     ms, in bf16 (989 TFLOP/s dense) 0.016 ms.
+//     16.5 GFLOP: 0.10 ms each in three-pass TF32 (495 / 3 TFLOP/s), 0.017
+//     ms in bf16 (989 TFLOP/s dense), 0.25 ms on the FMA units (67 TFLOP/s).
 //   * Bytes. The residuals are 6H words per row-step: 377 MB per pass in f32,
 //     189 MB in bf16, plus dgates (4H f32, 252 MB) written by the backward
 //     recurrence and read by the reduction. At 3.35 TB/s that is 0.06-0.19 ms
-//     per kernel: the forward is bound by FMA throughput, the backward's
-//     tiers by bytes (0.14-0.19 ms) once on the tensor cores. At the
-//     crossuser 10 s encoder (B = 4096, T = 100, L = 2, f32 residuals) the
-//     backward reads 2.10 GB of gates and c and writes 1.68 GB of dgates:
-//     1.19 ms, against 164 GFLOP, 0.99 ms in three-pass TF32.
+//     per kernel: the f32 forward is bound by its products, the bf16 one by
+//     its residual stores, the backward's tiers by bytes (0.14-0.19 ms). At
+//     the crossuser 10 s encoder (B = 4096, T = 100, L = 2, f32 residuals)
+//     the forward does 162 GFLOP (0.99 ms in three-pass TF32) and writes 2.5
+//     GB (0.75 ms); the backward reads 2.10 GB of gates and c and writes 1.68
+//     GB of dgates: 1.19 ms, against 164 GFLOP, 0.99 ms.
 //   * W does not fit shared memory beside a block's state (131 x 512 x 4 =
 //     268 KB > 227 KB); it is read from L2 every layer-step.
-//   * Occupancy at the training batch. The forward's thread owns TR = 4 rows
-//     x TJ = 4 hidden units and a block 16 rows (the wrapper picks; 8 rows
-//     per thread spilled registers and ran slower): at B = 4096 that is 256
-//     blocks of 128 threads, two resident per SM, one wave. The backward's
-//     32-row blocks of 16 warps give 128 blocks, one wave on 132 SMs. The dW
-//     reduction tiles dW into 144 x 128 tiles and splits the B·T rows so
-//     that the full tiles alone give two blocks per SM.
+//   * The recurrence: T·L serial layer-steps, each a product, a cell and
+//     two barriers; 128 blocks of 32 rows at B = 4096, one wave on 132 SMs.
 // What the design does about it:
-//   * The forward keeps every carry on chip: h of every layer k-major in
-//     shared memory (read as the second half of [x, h]) and c in
-//     owner-private shared memory (a thread owns the same (row, unit) pairs
-//     in every step, so the cell math needs no exchange). A k-major column
-//     of the thread's 4 rows is one 16-byte shared load (a broadcast: a warp
-//     shares its rows) and one 16-byte store.
+//   * The forward is the serve kernel's decoder body (lstm_mma.cuh server,
+//     lstm_common.cuh says how the training modes extend it): z = [x_t | h_0
+//     .. h_L-1] a block row in shared memory in the tier's type, the
+//     encoders' warp tiles of all four gates (32 rows x 8 units in f32 on
+//     16 warps, x 16 in bf16 on 8 at 32 rows), c in the lanes' slots, W
+//     packed once a call (ops/fused_lstm.py pack_weights_tf32, pack_weights)
+//     and streamed from L2 by each warp; h, c and the gates stored from the
+//     cell's registers as 8- or 4-byte pairs, a quad of lanes 8 units along
+//     a row. Layer 0's input takes whole k-steps of any width (the
+//     teacher-forced decoder's [x, ctx], D = 3 + C). 32-row blocks give 128
+//     blocks at B = 4096; 64 rows where the grid still has 128
+//     (ops/lstm_train.py fwd_block).
 //   * The backward is the scheduled-sampling decoder's (lstm_common.cuh says
 //     how it runs): warp w holds units 8w .. 8w + 7 of the block's 32 rows in
 //     the cell, which runs in mma's accumulator layout, and in its n-tiles of
 //     the product; dgates go to device memory and, in the tier's type, to an
 //     A buffer in shared memory; Wᵀ, packed once a call in mma's B fragment
 //     order (ops/lstm_ss.py pack_bwd_weights), streams from L2 through each
-//     warp's cp.async ring. It runs without the feedback, the coin, the
-//     projection and the context: the top layer's upstream gradient is
+//     warp's cp.async ring; deep stacks in 16-row blocks, hidden above 128
+//     with two unit blocks a warp. It runs without the feedback, the coin,
+//     the projection and the context: the top layer's upstream gradient is
 //     dhs_top[t], the carries start from dhT, dcT, and dxs is written every
 //     step, its first D (up to 8) columns from the warps' mma partials, the
 //     rest (the teacher-forced decoder's static context, D = 3 + C) from
@@ -99,109 +102,38 @@
 #include "lstm_common.cuh"
 
 // ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <typename CT>
-struct FwdArgs {
-  const CT* w[MAX_LAYERS];     // (in_l + H, 4H), gate order i, f, g, o
-  const float* b[MAX_LAYERS];  // (4H,)
-  void* hs[MAX_LAYERS];        // (B, T, H) residual type
-  void* cs[MAX_LAYERS];        // (B, T, H)
-  void* gs[MAX_LAYERS];        // (B, T, 4H)
-};
-
-template <typename RT, typename CT>
-__global__ void __launch_bounds__(256)
-    lstm_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
-                    const float* __restrict__ c0, const FwdArgs<CT> a, int B,
-                    int T, int D, int H, int L, int R) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int j0 = (tid % (H / TJ)) * TJ;
-  const int r0 = (tid / (H / TJ)) * TR;
-  const int HR = H * R;
-  float* h_s = smem;          // L x (H, R)
-  float* c_s = h_s + L * HR;  // L x (TR * TJ, nthr): the same H * R floats
-  float* x_s = c_s + L * HR;  // (D, R) layer-0 input x_t
-  const long long row0 = (long long)blockIdx.x * R;
-
-  load_states(h_s, c_s, h0, c0, row0, B, H, L, R, r0, j0, tid, nthr);
-
-  for (int t = 0; t < T; ++t) {
-    for (int i = tid; i < R * D; i += nthr) {
-      const int r = i / D, d = i % D;
-      const long long row = row0 + r;
-      x_s[d * R + r] = row < B ? xs[(row * T + t) * D + d] : 0.0f;
-    }
-    __syncthreads();
-    for (int l = 0; l < L; ++l)
-      fwd_layer_step<RT>(
-          l == 0 ? x_s : h_s + (l - 1) * HR, l == 0 ? D : H, h_s + l * HR,
-          c_s + l * HR, a.w[l], a.b[l], static_cast<RT*>(a.hs[l]),
-          static_cast<RT*>(a.cs[l]), static_cast<RT*>(a.gs[l]), row0, B, T, t,
-          H, R, r0, j0, tid, nthr);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // C interface: each function launches on `stream` and returns
 // cudaGetLastError() (0 = ok).
 // ---------------------------------------------------------------------------
 
-static bool bad_shape(int batch, int t_len, int d, int hidden, int layers,
-                      int rows) {
-  return layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
-         rows < TR || rows % TR || batch < 1 || t_len < 1 || d < 1 ||
-         (rows / TR) * (hidden / TJ) > 256;
-}
-
-// The launches with the weights in the compute type CT (see lstm_fwd and
-// lstm_bwd below).
-template <typename CT>
-static int fwd_go(const float* xs, const float* h0, const float* c0,
-                  const void* const* w, const void* const* b, void* const* hs,
-                  void* const* cs, void* const* gs, int batch, int t_len, int d,
-                  int hidden, int layers, int rows, int bf16, cudaStream_t st) {
-  FwdArgs<CT> a;
-  for (int l = 0; l < MAX_LAYERS; ++l) {
-    const bool on = l < layers;
-    a.w[l] = on ? static_cast<const CT*>(w[l]) : nullptr;
-    a.b[l] = on ? static_cast<const float*>(b[l]) : nullptr;
-    a.hs[l] = on ? hs[l] : nullptr;
-    a.cs[l] = on ? cs[l] : nullptr;
-    a.gs[l] = on ? gs[l] : nullptr;
-  }
-  const size_t smem = ((size_t)2 * layers * hidden + d) * rows * sizeof(float);
-  const int threads = (rows / TR) * (hidden / TJ);
-  const int grid = (batch + rows - 1) / rows;
-  if (bf16)
-    return launch_with_smem(lstm_fwd_kernel<__nv_bfloat16, CT>, grid, threads,
-                            smem, st, xs, h0, c0, a, batch, t_len, d, hidden,
-                            layers, rows);
-  return launch_with_smem(lstm_fwd_kernel<float, CT>, grid, threads, smem, st,
-                          xs, h0, c0, a, batch, t_len, d, hidden, layers, rows);
-}
-
 extern "C" {
 
-// rows: batch rows per block, a multiple of 4. The block has
-// (rows / 4) * (hidden / 4) threads and (2 * layers * hidden + d) * rows
-// floats of dynamic shared memory. bf16: residuals in bf16; cbf16: the bf16
-// compute type, w in bf16 (else f32).
-int lstm_fwd(const void* xs, const void* h0, const void* c0,
-             const void* const* w, const void* const* b, void* const* hs,
-             void* const* cs, void* const* gs, int batch, int t_len, int d,
-             int hidden, int layers, int rows, int bf16, int cbf16,
-             void* stream) {
-  if (bad_shape(batch, t_len, d, hidden, layers, rows))
-    return (int)cudaErrorInvalidValue;
-  const auto go = cbf16 ? &fwd_go<__nv_bfloat16> : &fwd_go<float>;
-  return go(static_cast<const float*>(xs), static_cast<const float*>(h0),
-            static_cast<const float*>(c0), w, b, hs, cs, gs, batch, t_len, d,
-            hidden, layers, rows, bf16, static_cast<cudaStream_t>(stream));
+// The forward recurrence: lstm_common.cuh's train_fwd_kernel in its
+// teacher-forced mode (SSB_TF). w: every layer's W packed for the tier
+// (ops/fused_lstm.py pack_weights_tf32, f32; pack_weights when cbf16, bf16),
+// b (4·hidden,) f32 a layer; xs (batch, t_len, d), h0, c0 (layers, batch,
+// hidden) f32 → hs, cs (batch, t_len, hidden) and gs (batch, t_len,
+// 4·hidden) a layer, bf16 when bf16, else f32. The block (ops/lstm_train.py
+// fwd_block): rp rows, `warps` warps, c in shared memory or, where c_glob is
+// given, in c_glob (grid x layers x rp x hidden floats).
+int lstm_fwd(const void* w, const void* const* b, const void* xs, const void* h0, const void* c0, void* const* hs,
+             void* const* cs, void* const* gs, void* c_glob, int batch, int t_len, int d, int hidden, int layers,
+             int rp, int warps, int bf16, int cbf16, void* stream) {
+  TrainFwdArgs a = train_fwd_args(w, b, hs, cs, gs, h0, c0, layers);
+  a.xs = static_cast<const float*>(xs);
+  return train_fwd_go<SSB_TF>(a, c_glob, batch, t_len, d, 0, hidden, layers, rp, warps, bf16, cbf16, stream);
 }
+
+// The forward's dynamic shared memory at a block of rp rows, c in shared
+// memory (c_smem) or not; -1 for a block it does not take
+long long lstm_fwd_smem(int rp, int d, int hidden, int layers, int c_smem, int cbf16) {
+  if (train_fwd_bad_shape(1, 1, d, 0, hidden, layers, rp, 1, c_smem != 0, SSB_TF, cbf16)) return -1;
+  return train_fwd_smem(rp, d, 0, hidden, layers, c_smem != 0, SSB_TF, cbf16);
+}
+
+// The forward's probe build's sums (-DLSTM_PROBE; LstmPart order, LP_PARTS
+// of them) into out, then zeroed; without LSTM_PROBE, zeros.
+int train_fwd_probe_read(unsigned long long* out) { return probe_read(g_lstm_probe, out); }
 
 // The backward recurrence: lstm_common.cuh's ss_bwd_kernel in its
 // teacher-forced mode (SSB_TF; 32 rows a block of hidden / 8 warps, hidden a
@@ -224,11 +156,12 @@ int lstm_bwd(const void* dhs_top, const void* dhT, const void* dcT, const void* 
 }
 
 // The backward recurrence's dynamic shared memory at a shape it takes (-1
-// for one it does not), bytes
-long long lstm_bwd_smem(int hidden, int layers, int d_narrow, int d_wide, int cbf16) {
-  if (ss_bwd_bad_shape(1, 1, d_narrow, d_wide, hidden, layers)) return -1;
-  return cbf16 ? ss_bwd_smem_bytes<lstm_mma::Bf16Mma>(hidden, layers, d_wide, true)
-               : ss_bwd_smem_bytes<lstm_mma::Tf32Mma>(hidden, layers, d_wide, true);
+// for one it does not), bytes; its block (rows, warps, W ring depth) into
+// out
+long long lstm_bwd_smem(int hidden, int layers, int d_narrow, int d_wide, int cbf16, int* out) {
+  const SsbBlock g = ss_bwd_block(hidden, layers, d_wide, true, cbf16);
+  out[0] = 16 * g.mt, out[1] = hidden / (8 * g.ub), out[2] = g.stages;
+  return ss_bwd_smem(d_narrow, d_wide, hidden, layers, true, cbf16);
 }
 
 // The probe build's sums (-DSSB_PROBE; SsbPart order, SB_PARTS of them)

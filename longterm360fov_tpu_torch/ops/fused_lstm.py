@@ -695,19 +695,21 @@ def _pack_index(k_rows: int, hidden: int, device: torch.device) -> torch.Tensor:
     return (k * 4 * hidden + col).reshape(-1).to(device)
 
 
-def pack_weights(params: Sequence[LSTMParams], d: int) -> torch.Tensor:
+def pack_weights(params: Sequence[LSTMParams], d: int, ctx_dim: int = 0) -> torch.Tensor:
     """Every layer's W, bf16, in the tensor-core kernels' B layout
     (:func:`_pack_index`), one flat array, layer after layer; layer 0's
     first ``d`` rows (x, or the serve decoder's y) padded with zero rows to
-    a whole k16 step, its other rows (the serve decoder's context rows,
-    then h's) after them."""
+    a whole k16 step, then its ``ctx_dim`` context rows (the decoders')
+    padded likewise, then h's."""
     hidden = params[0].w.shape[1] // 4
-    kx = -(-d // 16) * 16
+    kx, cp = -(-d // 16) * 16, -(-ctx_dim // 16) * 16
     out = []
     for l, p in enumerate(params):
         w = p.w.to(torch.bfloat16)
         if l == 0:
-            w = torch.cat([w[:d], w.new_zeros((kx - d, 4 * hidden)), w[d:]])
+            zeros = w.new_zeros
+            w = torch.cat([w[:d], zeros((kx - d, 4 * hidden)), w[d:d + ctx_dim], zeros((cp - ctx_dim, 4 * hidden)),
+                           w[d + ctx_dim:]])
         out.append(w.reshape(-1)[_pack_index(w.shape[0], hidden, w.device)])
     return torch.cat(out)
 

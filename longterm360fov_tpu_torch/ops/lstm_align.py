@@ -361,7 +361,7 @@ def dec_fwd(params: Sequence[LSTMParams], proj_w, proj_b, h0, c0, y0, teacher_tm
         return lstm_ss._forward_reference(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins,
                                           ctx, residual_dtype, compute_dtype)
     out = lstm_ss.fwd_launch(_library().align_dec_fwd, "dec_fwd", params, proj_w, proj_b, h0, c0,
-                             y0, teacher_tm, coins, ctx, residual_dtype, compute_dtype)
+                             y0, teacher_tm, coins, ctx, residual_dtype, compute_dtype, step_ctx=True)
     count_launch(dec_fwd, compute_dtype)
     return out
 
@@ -549,7 +549,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.align_peer_fwd.argtypes = [vp] * 8 + [i32] * 12 + [vp]
     lib.align_peer_fwd_smem.argtypes = [i32] * 10
     lib.align_peer_fwd_smem.restype = ctypes.c_longlong
-    lib.align_dec_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 9 + [vp]
+    lib.align_dec_fwd.argtypes = lstm_ss.FWD_ARGTYPES
+    lib.train_fwd_probe_read.argtypes = [vp]
+    lib.train_fwd_probe_read.restype = i32
     lib.align_dec_bwd.argtypes = [vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 8 + [vp]
     lib.align_peer_bwd.argtypes = [vp] * 11 + [i32] * 8 + [vp]
     lib.peer_bwd_smem.argtypes = [i32] * 4

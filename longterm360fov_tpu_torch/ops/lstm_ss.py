@@ -20,7 +20,10 @@ Four kernels of ``csrc/lstm_ss.cu`` carry it on the card:
 
 * :func:`ss_fwd`, the forward recurrence: ``ys`` f32 and, per layer, the
   residuals ``hs``, ``cs (B, T, H)`` and the gates ``(B, T, 4H)`` in
-  ``residual_dtype``;
+  ``residual_dtype``; the training forward on the tensor cores
+  (``csrc/lstm_common.cuh`` train_fwd_kernel: the serve kernel's decoder
+  body with the coins, the teacher and the residual stores), its block from
+  ``lstm_train.fwd_block``;
 * :func:`ss_bwd`, the backward recurrence in reverse time: the total
   gradient ``dy`` of every ``y_t`` (upstream plus the feedback from step
   t + 1), ``dgates`` per layer, ``dteacher (T, B, D)``, ``dy0``, ``dh0``,
@@ -71,8 +74,10 @@ from .lstm_train import (
     dw_pack,
     dw_splits,
     dw_zld,
+    c_buffer,
+    fwd_block,
+    fwd_weights,
     in_compute,
-    kernel_rows as _lstm_kernel_rows,
     widen,
 )
 
@@ -83,7 +88,6 @@ __all__ = [
     "ss_bwd",
     "ss_dw",
     "ss_dproj",
-    "kernel_rows",
     "bwd_block",
     "pack_bwd_weights",
 ]
@@ -249,22 +253,6 @@ def _dproj_reference(hs_top: torch.Tensor, dy: torch.Tensor, compute_dtype=torch
 # ---------------------------------------------------------------------------
 
 
-def kernel_rows(hidden: int, layers: int, d: int, ctx_dim: int) -> int:
-    """Batch rows per block of the forward recurrence kernel: ``lstm_train``'s
-    choice (16 rows, 4 x 4 per thread), halved until its shared memory fits
-    (h, c of every layer, the layer-0 input ``[x, ctx]``, the feedback).
-    Raises for shapes the kernel does not take. (The backward's block is
-    :func:`bwd_block`'s.)"""
-    rows = _lstm_kernel_rows(hidden, layers, d)
-    per_row = 2 * layers * hidden + 2 * d + ctx_dim
-    while rows >= 4 and 4 * rows * per_row > _SMEM_LIMIT:
-        rows //= 2
-    if rows < 4:
-        raise ValueError(f"layers={layers}, hidden={hidden}, ctx_dim={ctx_dim}: the per-layer "
-                         f"state does not fit one block's shared memory")
-    return rows
-
-
 def _check(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context, residual_dtype,
            step_ctx=False):
     if teacher_tm.dim() != 3:
@@ -351,22 +339,24 @@ def ss_fwd(
     if y0.device.type == "cpu":
         return _forward_reference(params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins,
                                   context, residual_dtype, compute_dtype)
-    out = fwd_launch(_library().ss_fwd, "ss_fwd", params, proj_w, proj_b, h0, c0, y0,
-                     teacher_tm, coins, context, residual_dtype, compute_dtype)
+    out = fwd_launch(_library().ss_fwd, "ss_fwd", params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins,
+                     context, residual_dtype, compute_dtype, step_ctx=False)
     count_launch(ss_fwd, compute_dtype)
     return out
 
 
 def fwd_launch(fn, name, params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, context,
-               residual_dtype, compute_dtype):
-    """Launch a forward recurrence kernel (``fn``: ``ss_fwd`` here, or
-    ``ops.lstm_align``'s per-step-context instance, which takes the same
-    arguments) on checked CUDA tensors → (ys, residuals)."""
+               residual_dtype, compute_dtype, *, step_ctx):
+    """Launch a forward recurrence kernel (``fn``: ``ss_fwd`` here, or with
+    ``step_ctx`` ``ops.lstm_align``'s per-step-context instance, which takes
+    the same arguments) on checked CUDA tensors → (ys, residuals): the block
+    from ``lstm_train.fwd_block``, W packed once a call
+    (``lstm_train.fwd_weights``)."""
     ctx_dim = 0 if context is None else context.shape[-1]
     _ctx_ok(ctx_dim)
     t_len, batch, d = teacher_tm.shape
     hidden, layers = proj_w.shape[0], len(params)
-    rows = kernel_rows(hidden, layers, d, ctx_dim)
+    geo = fwd_block(hidden, layers, d, batch, compute_dtype, ctx_dim=ctx_dim, mode="step" if step_ctx else "static")
     dev = y0.device
 
     def empty(width):
@@ -374,18 +364,18 @@ def fwd_launch(fn, name, params, proj_w, proj_b, h0, c0, y0, teacher_tm, coins, 
 
     res = Residuals(empty(hidden), empty(hidden), empty(4 * hidden))
     ys = torch.empty((batch, t_len, d), device=dev)
-    ws, bs = in_compute([p.w for p in params], compute_dtype), [p.b for p in params]
-    (proj_w,) = in_compute([proj_w], compute_dtype)
-    ctx_t = [] if context is None else [context]
-    _check_card([proj_w, proj_b, h0, c0, y0, teacher_tm, coins, *ctx_t, *ws, *bs,
-                 *res.hs, *res.cs, *res.gs, ys])
+    w = fwd_weights(params, d, ctx_dim, compute_dtype)
+    bs = [p.b for p in params]
+    (proj_wt,) = in_compute([proj_w.t()], compute_dtype)  # (D, H), as the projection reads it
+    c_glob = c_buffer(geo, batch, layers, hidden, dev)
+    extra = ([] if context is None else [context]) + ([] if c_glob is None else [c_glob])
+    _check_card([w, proj_wt, proj_b, h0, c0, y0, teacher_tm, coins, *bs, *res.hs, *res.cs, *res.gs, ys, *extra])
     with torch.cuda.device(dev):
         err = fn(
-            h0.data_ptr(), c0.data_ptr(), y0.data_ptr(), teacher_tm.data_ptr(),
-            coins.data_ptr(), None if context is None else context.data_ptr(),
-            _ptrs(ws), _ptrs(bs), proj_w.data_ptr(), proj_b.data_ptr(),
-            _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs), ys.data_ptr(),
-            batch, t_len, d, ctx_dim, hidden, layers, rows,
+            w.data_ptr(), _ptrs(bs), _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs), h0.data_ptr(), c0.data_ptr(),
+            y0.data_ptr(), teacher_tm.data_ptr(), coins.data_ptr(), None if context is None else context.data_ptr(),
+            proj_wt.data_ptr(), proj_b.data_ptr(), ys.data_ptr(), None if c_glob is None else c_glob.data_ptr(),
+            batch, t_len, d, ctx_dim, hidden, layers, geo.rp, geo.warps,
             int(residual_dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), _stream(),
         )
     _raise_on(err, name)
@@ -397,66 +387,75 @@ ss_fwd.launches = ss_fwd.launches_bf16 = 0
 
 class SsBwdGeom(NamedTuple):
     """A block of the backward recurrence on the tensor cores
-    (``csrc/lstm_common.cuh`` ss_bwd_kernel): ``rows`` batch rows (two m16
-    tiles) in ``warps`` warps (one a unit block of 8), each warp's ring of
-    W's pieces ``stages`` k-pairs deep (W read ``stages - 1`` k-pairs ahead
-    of the mma; the kernel's template parameter, which its launcher picks
-    as this does), and the block's dynamic shared memory in bytes."""
+    (``csrc/lstm_common.cuh`` ss_bwd_kernel): ``rows`` batch rows (one or
+    two m16 tiles) in ``warps`` warps (one or two unit blocks of 8 each),
+    each warp's ring of W's pieces ``stages`` k-pairs deep (W read ``stages -
+    1`` k-pairs ahead of the mma), and the block's dynamic shared memory in
+    bytes; the kernel's template parameters, which its launcher picks as
+    this does (``ssb_block``)."""
     rows: int
     warps: int
     stages: int
     smem: int
 
 
-_BWD_ROWS = 32  # csrc/lstm_common.cuh SSB_ROWS
 _BWD_MAX_D = 8  # SSB_MAX_D: coordinates a token
+_BWD_MAX_HIDDEN = 256  # two unit blocks a warp, 16 warps
 
 
-# the W ring's depths in the order preferred (ssb_stages): 4 k-pairs hide
-# W's L2 latency; 2 only where a deeper stack's carries leave no room
+# the W ring's depths in the order preferred (ssb_block): 4 k-pairs hide W's
+# L2 latency; 2 only where a deeper stack's carries leave no room, and in the
+# 16-row blocks
 _BWD_STAGES = (4, 2)
 
 
-def _bwd_smem(hidden: int, layers: int, ctx_dim: int, step_ctx: bool, stages: int, f32: bool) -> int:
-    """``ssb_smem_bytes``: the A buffer of 32 rows x (4H + a 16-byte pad)
-    of dgates in the tier's type, the carried dh and dc of every layer
+def _bwd_smem(hidden: int, layers: int, ctx_dim: int, step_ctx: bool, stages: int, f32: bool, rows: int = 32,
+              unit_blocks: int = 1) -> int:
+    """``ssb_smem_bytes``: the A buffer of ``rows`` rows x (4H + a 16-byte
+    pad) of dgates in the tier's type, the carried dh and dc of every layer
     (f32), the static context's dctx sums, dy_t of the rows, the warps'
     partials of dx and each warp's ring of ``stages`` k-pairs of two
-    n-tiles (1 KB a k-pair); hidden / 8 warps."""
-    e, warps = (4 if f32 else 2), hidden // 8
-    return (e * _BWD_ROWS * (4 * hidden + 16 // e) + 8 * layers * _BWD_ROWS * hidden
-            + (0 if step_ctx else 4 * _BWD_ROWS * ctx_dim) + 4 * _BWD_ROWS * _BWD_MAX_D * (1 + warps)
+    n-tiles (1 KB a k-pair); hidden / (8 · ``unit_blocks``) warps."""
+    e, warps = (4 if f32 else 2), hidden // (8 * unit_blocks)
+    return (e * rows * (4 * hidden + 16 // e) + 8 * layers * rows * hidden
+            + (0 if step_ctx else 4 * rows * ctx_dim) + 4 * rows * _BWD_MAX_D * (1 + warps)
             + 1024 * stages * warps)
 
 
 def bwd_block(hidden: int, layers: int, d: int, ctx_dim: int, compute_dtype=torch.float32,
               step_ctx: bool = False) -> SsBwdGeom:
-    """The block of the backward recurrence: 32 rows in hidden / 8 warps,
-    with the deepest W ring of ``_BWD_STAGES`` that fits beside every
-    layer's carries: 4 k-pairs, else 2.
-    Raises for shapes the kernel does not take: hidden not a multiple of 32
-    up to 128 (a warp a unit block, at most 16), more than 8 layers, d
-    outside 1..8, a context not of whole n8 tiles up to
-    hidden (one dctx n-tile a warp), or a block past shared memory."""
-    if hidden % 32 or not 32 <= hidden <= 128:
-        raise ValueError(f"the backward recurrence takes hidden a multiple of 32 up to 128 (a warp each 8 units, "
-                         f"at most 16), got hidden={hidden}")
+    """The block of the backward recurrence: up to hidden 128, 32 rows in
+    hidden / 8 warps (a unit block of 8 each) with the deepest W ring of
+    ``_BWD_STAGES`` that fits beside every layer's carries; where none does,
+    and above hidden 128 (two unit blocks a warp, hidden / 16 warps), 16 rows
+    with a ring of 2. Raises for shapes the kernel does not take: hidden not
+    a multiple of 32 up to 256, more than 8 layers, d outside 1..8, a context
+    not of whole n8 tiles up to hidden (one dctx n-tile a unit block), or a
+    block of 16 rows past shared memory."""
+    if hidden % 32 or not 32 <= hidden <= _BWD_MAX_HIDDEN:
+        raise ValueError(f"the backward recurrence takes hidden a multiple of 32 up to {_BWD_MAX_HIDDEN} (a warp "
+                         f"one or two unit blocks of 8, at most 16 warps), got hidden={hidden}")
     if not 1 <= layers <= 8:
         raise ValueError(f"the backward recurrence takes 1..8 layers, got {layers}")
     if not 1 <= d <= _BWD_MAX_D:
         raise ValueError(f"the backward recurrence takes 1 <= d <= {_BWD_MAX_D} coordinates a token, got d={d}")
     if ctx_dim % 8 or not 0 <= ctx_dim <= hidden:
         raise ValueError(f"the backward recurrence takes ctx_dim a multiple of 8 up to hidden (one dctx n-tile a "
-                         f"warp), got ctx_dim={ctx_dim}, hidden={hidden}")
+                         f"unit block), got ctx_dim={ctx_dim}, hidden={hidden}")
     f32 = compute_dtype != torch.bfloat16
-    for stages in _BWD_STAGES:
-        smem = _bwd_smem(hidden, layers, ctx_dim, step_ctx, stages, f32)
-        if smem <= _SMEM_LIMIT:
-            return SsBwdGeom(_BWD_ROWS, hidden // 8, stages, smem)
+    ub = 2 if hidden > 128 else 1
+    if ub == 1:
+        for stages in _BWD_STAGES:
+            smem = _bwd_smem(hidden, layers, ctx_dim, step_ctx, stages, f32)
+            if smem <= _SMEM_LIMIT:
+                return SsBwdGeom(32, hidden // 8, stages, smem)
+    smem = _bwd_smem(hidden, layers, ctx_dim, step_ctx, 2, f32, rows=16, unit_blocks=ub)
+    if smem <= _SMEM_LIMIT:
+        return SsBwdGeom(16, hidden // (8 * ub), 2, smem)
     raise ValueError(
-        f"layers={layers}, hidden={hidden}, ctx_dim={ctx_dim}: the backward recurrence's block of {_BWD_ROWS} rows "
-        f"keeps every layer's carried dh and dc ({8 * layers * _BWD_ROWS * hidden} bytes) beside an A buffer of "
-        f"dgates in {'f32' if f32 else 'bf16'} and rings of W, {smem} bytes of shared memory, more than {_SMEM_LIMIT}"
+        f"layers={layers}, hidden={hidden}, ctx_dim={ctx_dim}: the backward recurrence's block of 16 rows keeps every "
+        f"layer's carried dh and dc ({8 * layers * 16 * hidden} bytes) beside an A buffer of dgates in "
+        f"{'f32' if f32 else 'bf16'} and rings of W, {smem} bytes of shared memory, more than {_SMEM_LIMIT}"
     )
 
 
@@ -678,15 +677,24 @@ def dproj_splits(rows: int, d: int, hidden: int, residual_dtype: torch.dtype, n_
 ss_dproj.launches = ss_dproj.launches_bf16 = 0
 
 
+# the decoder forwards' C signature (lstm_ss.cu ss_fwd, lstm_align.cu align_dec_fwd)
+FWD_ARGTYPES = ([ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_void_p)] * 4 + [ctypes.c_void_p] * 10
+                + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The kernels' library, built at first use and loaded once."""
     lib = _build.load("lstm_ss")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
-    lib.ss_fwd.argtypes = [vp] * 6 + [arr, arr, vp, vp, arr, arr, arr, vp] + [i32] * 9 + [vp]
+    lib.ss_fwd.argtypes = FWD_ARGTYPES
+    lib.ss_fwd_smem.argtypes = [i32] * 8
+    lib.ss_fwd_smem.restype = ctypes.c_longlong
+    lib.train_fwd_probe_read.argtypes = [vp]
+    lib.train_fwd_probe_read.restype = i32
     lib.ss_bwd.argtypes = [vp, vp, vp, arr, vp, vp, arr, arr, arr] + [vp] * 6 + [i32] * 8 + [vp]
-    lib.ss_bwd_smem.argtypes = [i32] * 6
+    lib.ss_bwd_smem.argtypes = [i32] * 6 + [vp]
     lib.ss_bwd_smem.restype = ctypes.c_longlong
     lib.ss_dw.argtypes = [vp] * 6 + [arr] * 4 + [vp, vp, arr, arr] + [i32] * 10 + [vp]
     lib.ss_dproj.argtypes = [vp] * 5 + [i32] * 7 + [vp]

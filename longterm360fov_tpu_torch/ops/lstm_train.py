@@ -15,7 +15,12 @@ in f32; ``db``, the carries, gates, residuals and dgates stay unrounded.
 
 Three kernels of ``csrc/lstm_train.cu`` carry it on the card:
 
-* :func:`lstm_fwd`, the forward recurrence, which writes the residuals;
+* :func:`lstm_fwd`, the forward recurrence, which writes the residuals:
+  the training forward on the tensor cores (``csrc/lstm_common.cuh``
+  train_fwd_kernel, the serve kernel's decoder body in the teacher-forced
+  mode: three-pass TF32 in f32, bf16 ``mma.sync`` in bf16), its block from
+  :func:`fwd_block`, W packed once a call by ``fused_lstm.pack_weights_tf32``
+  or ``pack_weights``;
 * :func:`lstm_bwd`, the backward recurrence in reverse time, which carries
   ``dh`` and ``dc`` per layer and writes ``dgates``, ``dxs``, ``dh0`` and
   ``dc0``: the scheduled-sampling decoder's tensor-core body
@@ -59,10 +64,12 @@ __all__ = [
     "lstm_seq",
     "lstm_seq_states_reference",
     "lstm_fwd",
+    "launch_fwd",
     "lstm_bwd",
     "launch_bwd",
     "lstm_dw",
-    "kernel_rows",
+    "FwdGeom",
+    "fwd_block",
     "bwd_split",
     "bwd_block",
     "dw_splits",
@@ -73,8 +80,6 @@ __all__ = [
 
 MAX_LAYERS = 8  # csrc/lstm_train.cu MAX_LAYERS
 _SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use (227 KB)
-_MAX_THREADS = 256  # the forward kernel's __launch_bounds__
-_TR, _TJ = 4, 4  # rows and hidden units per thread
 _DW_TILE = 128  # csrc/lstm_common.cuh DW_T: gate columns of a dW tile
 _DW_FEATURES = 144  # DW_F: z features of a dW tile (nine 16-row mma tiles)
 _DW_VEC = 8  # DW_V: the packed z's rows are whole runs of 8 values
@@ -254,33 +259,94 @@ def _pack_reference(xs: torch.Tensor, h0: torch.Tensor, res: Residuals, layer: i
 # ---------------------------------------------------------------------------
 
 
-def kernel_rows(hidden: int, layers: int, d: int) -> int:
-    """Batch rows per block of the forward recurrence kernel.
+class FwdGeom(NamedTuple):
+    """A block of the training forward on the tensor cores
+    (``csrc/lstm_common.cuh`` train_fwd_kernel): ``rp`` batch rows in warp
+    tiles of 32 rows (x 8 units in f32, x 16 in bf16), ``warps`` warps, c in
+    shared memory (``c_smem``) or in device memory, and the block's dynamic
+    shared memory in bytes."""
+    rp: int
+    warps: int
+    c_smem: bool
+    smem: int
 
-    A thread owns 4 rows x 4 hidden units, so a block of R rows has
-    (R / 4) · (hidden / 4) threads. The training batch is small next to
-    serving's, so the block takes 16 rows: B = 4096 then gives 256 blocks of
-    128 threads on the 132 SMs, two resident per SM (``csrc/lstm_train.cu``
-    says why). Rows are halved until the block's shared memory (h and c of
-    every layer, the layer-0 input) fits; raises for shapes the kernel does
-    not take. (The backward's block is :func:`bwd_block`'s.)"""
-    if hidden < 32 or hidden % 32:
-        raise ValueError(f"the kernels need hidden % 32 == 0, got {hidden}")
+
+FWD_MODES = ("tf", "static", "step")  # teacher-forced; the decoder with a static or a per-step context
+_FWD_ROWS = (64, 32)  # rows a block: whole 32-row warp tiles
+_FWD_BLOCKS = 128  # blocks a grid fills before a block takes 64 rows: one wave on the card's 132 SMs
+_FWD_MAX_HIDDEN = 256  # the backward's widest, two unit blocks a warp
+_FWD_MAX_D = 8  # csrc/lstm_common.cuh SSB_MAX_D: coordinates a token of the decoder's feedback
+
+
+def _fwd_smem(rp: int, d: int, ctx_dim: int, hidden: int, layers: int, c_smem: bool, mode: str, f32: bool) -> int:
+    """``tfw_smem_bytes``: c (when in shared memory), z ([x padded to a
+    k-step | ctx padded to a k-step | h of every layer] a row, a 16-byte pad
+    more), the staging of the new h (rows of H + 8), in the tier's type (f32
+    on k8 steps, bf16 on k16 steps); the per-step mode's ctx_t+1 in f32."""
+    e, ks, pad = (4, 8, 4) if f32 else (2, 16, 8)
+    kx, cp = -(-d // ks) * ks, -(-ctx_dim // ks) * ks
+    s = 4 * layers * rp * hidden if c_smem else 0
+    s += e * rp * (kx + cp + layers * hidden + pad) + e * rp * (hidden + 8)
+    return s + (4 * rp * ctx_dim if mode == "step" else 0)
+
+
+def fwd_block(hidden: int, layers: int, d: int, batch: int, compute_dtype=torch.float32, *, ctx_dim: int = 0,
+              mode: str = "tf") -> FwdGeom:
+    """The block of the training forward in ``mode`` (``FWD_MODES``): 64
+    rows where the grid still has ``_FWD_BLOCKS`` blocks, else 32 (B = 4096:
+    128 blocks of 32 rows, one wave); c in shared memory where it fits, else
+    in device memory; the warps that take the block's tiles in the fewest
+    rounds, at most 16. Raises a ValueError that names the shape for what
+    the kernel does not take: hidden not a multiple of 32 up to 256, more
+    than 8 layers, the decoder's d outside 1..8 or a context not of whole
+    16-byte pieces, or a block of 32 rows past shared memory."""
+    if mode not in FWD_MODES:
+        raise ValueError(f"mode must be one of {FWD_MODES}, got {mode!r}")
+    if hidden % 32 or not 32 <= hidden <= _FWD_MAX_HIDDEN:
+        raise ValueError(f"the training forward takes hidden a multiple of 32 up to {_FWD_MAX_HIDDEN}, "
+                         f"got hidden={hidden}")
     if not 1 <= layers <= MAX_LAYERS:
-        raise ValueError(f"the kernels take 1..{MAX_LAYERS} layers, got {layers}")
-    rows = min(16, _MAX_THREADS // (hidden // _TJ) * _TR)
+        raise ValueError(f"the training forward takes 1..{MAX_LAYERS} layers, got {layers}")
+    if batch < 1 or d < 1 or (mode != "tf" and d > _FWD_MAX_D):
+        raise ValueError(f"the training forward takes batch >= 1 and d >= 1 input columns ({_FWD_MAX_D} at most "
+                         f"in the decoders), got batch={batch}, d={d}")
+    if ctx_dim < 0 or ctx_dim % 4 or (mode == "tf" and ctx_dim):
+        raise ValueError(f"the decoders' training forward reads the context as 16-byte rows: ctx_dim % 4 == 0 (the "
+                         f"teacher-forced mode takes none), got ctx_dim={ctx_dim}")
+    f32 = compute_dtype != torch.bfloat16
+    rps = [rp for rp in _FWD_ROWS if rp == _FWD_ROWS[-1] or -(-batch // rp) >= _FWD_BLOCKS]
+    for rp in rps:
+        for c_smem in (True, False):
+            smem = _fwd_smem(rp, d, ctx_dim, hidden, layers, c_smem, mode, f32)
+            if smem <= _SMEM_LIMIT:
+                tiles = rp * hidden // (256 if f32 else 512)
+                rounds = -(-tiles // 16)
+                return FwdGeom(rp, -(-tiles // rounds), c_smem, smem)
+    least = _fwd_smem(32, d, ctx_dim, hidden, layers, False, mode, f32)
+    raise ValueError(
+        f"d={d}, ctx_dim={ctx_dim}, hidden={hidden}, layers={layers}: the training forward's block of 32 rows keeps "
+        f"[x, ctx, h of every layer] and a staging row in {'f32' if f32 else 'bf16'}, {least} bytes of shared memory "
+        f"with c in device memory, more than {_SMEM_LIMIT}"
+    )
 
-    def smem(r):
-        return 4 * r * (2 * layers * hidden + d)
 
-    while rows >= _TR and smem(rows) > _SMEM_LIMIT:
-        rows //= 2
-    if rows < _TR:
-        raise ValueError(
-            f"layers={layers}, hidden={hidden}: the per-layer state does not "
-            f"fit one block's shared memory"
-        )
-    return rows
+def fwd_weights(params: Sequence[LSTMParams], d: int, ctx_dim: int, compute_dtype) -> torch.Tensor:
+    """Every layer's W as the training forward reads it, packed once a call
+    (``fused_lstm.pack_weights_tf32`` in f32, ``pack_weights`` in bf16),
+    layer 0's rows [x | ctx | h] each padded to whole k-steps."""
+    from .fused_lstm import pack_weights, pack_weights_tf32  # fused_lstm imports this module
+
+    if compute_dtype == torch.bfloat16:
+        return pack_weights(params, d, ctx_dim)
+    return pack_weights_tf32(params, d, ctx_dim)
+
+
+def c_buffer(geo: FwdGeom, batch: int, layers: int, hidden: int, device) -> Optional[torch.Tensor]:
+    """The forward's c in device memory (grid x layers x rp x hidden f32)
+    where it does not fit the block's shared memory, else None."""
+    if geo.c_smem:
+        return None
+    return torch.empty(-(-batch // geo.rp) * layers * geo.rp * hidden, device=device)
 
 
 _BWD_NARROW = 8  # csrc/lstm_common.cuh SSB_MAX_D: input columns the backward's dx partials take
@@ -303,19 +369,19 @@ def bwd_block(hidden: int, layers: int, d: int, compute_dtype=torch.float32):
     layer 0's input split by :func:`bwd_split`, its wide columns taking the
     place of a per-step context → ``lstm_ss.SsBwdGeom``. Raises a
     ValueError that names the shape where the kernel does not take it:
-    hidden not a multiple of 32 up to 128, more than 8 layers, more than
+    hidden not a multiple of 32 up to 256, more than 8 layers, more than
     hidden + 8 input columns, or a block past shared memory."""
     from .lstm_ss import bwd_block as ss_block  # lstm_ss imports this module
 
-    if hidden % 32 or not 32 <= hidden <= 128:
-        raise ValueError(f"lstm_seq_states' backward takes hidden a multiple of 32 up to 128 (a warp each 8 units, "
-                         f"at most 16), got hidden={hidden}")
+    if hidden % 32 or not 32 <= hidden <= 256:
+        raise ValueError(f"lstm_seq_states' backward takes hidden a multiple of 32 up to 256 (a warp one or two "
+                         f"unit blocks of 8, at most 16 warps), got hidden={hidden}")
     if not 1 <= layers <= MAX_LAYERS:
         raise ValueError(f"lstm_seq_states' backward takes 1..{MAX_LAYERS} layers, got {layers}")
     narrow, wide = bwd_split(d)
     if d < 1 or wide > hidden:
         raise ValueError(f"lstm_seq_states' backward takes 1..{hidden + _BWD_NARROW} input columns at "
-                         f"hidden={hidden} (up to {_BWD_NARROW}, then whole n8 tiles, one a warp), got d={d}")
+                         f"hidden={hidden} (up to {_BWD_NARROW}, then whole n8 tiles, one a unit block), got d={d}")
     try:
         return ss_block(hidden, layers, narrow, wide, compute_dtype, step_ctx=True)
     except ValueError as e:
@@ -430,27 +496,38 @@ def lstm_fwd(
     check_compute(compute_dtype)
     if xs.device.type == "cpu":
         return _forward_reference(params, xs, h0, c0, residual_dtype, compute_dtype)
+    res = launch_fwd(_library(), params, xs, h0, c0, residual_dtype, compute_dtype)
+    count_launch(lstm_fwd, compute_dtype)
+    return res
+
+
+def launch_fwd(lib, params: Sequence[LSTMParams], xs, h0, c0, residual_dtype, compute_dtype) -> Residuals:
+    """Launch the forward recurrence of ``lib`` (a build of
+    ``csrc/lstm_train.cu``: the kernels' own, or a probe build,
+    ``-DLSTM_PROBE``) on checked CUDA tensors → the residuals; not counted.
+    The block comes from :func:`fwd_block`, W is packed once a call
+    (:func:`fwd_weights`)."""
     batch, t_len, d = xs.shape
     hidden, layers = h0.shape[-1], len(params)
-    rows = kernel_rows(hidden, layers, d)
+    geo = fwd_block(hidden, layers, d, batch, compute_dtype)
     res = Residuals(
         [torch.empty((batch, t_len, hidden), device=xs.device, dtype=residual_dtype) for _ in params],
         [torch.empty((batch, t_len, hidden), device=xs.device, dtype=residual_dtype) for _ in params],
         [torch.empty((batch, t_len, 4 * hidden), device=xs.device, dtype=residual_dtype) for _ in params],
     )
-    ws, bs = in_compute([p.w for p in params], compute_dtype), [p.b for p in params]
-    _check_card([xs, h0, c0, *ws, *bs, *res.hs, *res.cs, *res.gs])
-    lib = _library()
+    w = fwd_weights(params, d, 0, compute_dtype)
+    bs = [p.b for p in params]
+    c_glob = c_buffer(geo, batch, layers, hidden, xs.device)
+    _check_card([w, xs, h0, c0, *bs, *res.hs, *res.cs, *res.gs, *([] if c_glob is None else [c_glob])])
     with torch.cuda.device(xs.device):
         err = lib.lstm_fwd(
-            xs.data_ptr(), h0.data_ptr(), c0.data_ptr(), _ptrs(ws), _ptrs(bs),
-            _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs),
-            batch, t_len, d, hidden, layers, rows,
+            w.data_ptr(), _ptrs(bs), xs.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+            _ptrs(res.hs), _ptrs(res.cs), _ptrs(res.gs), None if c_glob is None else c_glob.data_ptr(),
+            batch, t_len, d, hidden, layers, geo.rp, geo.warps,
             int(residual_dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "lstm_fwd")
-    count_launch(lstm_fwd, compute_dtype)
     return res
 
 
@@ -621,9 +698,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     build of it) with its entry points typed."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
-    lib.lstm_fwd.argtypes = [vp, vp, vp, arr, arr, arr, arr, arr] + [i32] * 8 + [vp]
+    lib.lstm_fwd.argtypes = [vp, arr, vp, vp, vp, arr, arr, arr, vp] + [i32] * 9 + [vp]
+    lib.lstm_fwd_smem.argtypes = [i32] * 6
+    lib.lstm_fwd_smem.restype = ctypes.c_longlong
+    lib.train_fwd_probe_read.argtypes = [vp]
+    lib.train_fwd_probe_read.restype = i32
     lib.lstm_bwd.argtypes = [vp, vp, vp, vp, arr, vp, arr, arr, arr, vp, vp, vp] + [i32] * 8 + [vp]
-    lib.lstm_bwd_smem.argtypes = [i32] * 5
+    lib.lstm_bwd_smem.argtypes = [i32] * 5 + [vp]
     lib.lstm_bwd_smem.restype = ctypes.c_longlong
     lib.lstm_bwd_probe_read.argtypes = [vp]
     lib.lstm_bwd_probe_read.restype = i32

@@ -3,9 +3,12 @@ on one NVIDIA card: the scheduled-sampling decoder backward
 (``ops.lstm_ss.ss_bwd``, the static context of row 6, and
 ``ops.lstm_align.dec_bwd``, the per-step context of row 7;
 ``csrc/lstm_common.cuh`` ss_bwd_kernel), its teacher-forced mode, row 5's
-backward (``ops.lstm_train.lstm_bwd``; ``csrc/lstm_train.cu``), and the
-lockstep peer forward (``ops.lstm_align.peer_fwd``; ``csrc/lstm_align.cu``
-on ``lstm_mma.cuh``'s encoder).
+backward (``ops.lstm_train.lstm_bwd``; ``csrc/lstm_train.cu``), the
+training forwards in the same three modes (``ops.lstm_train.lstm_fwd``,
+``ops.lstm_ss.ss_fwd``, ``ops.lstm_align.dec_fwd``; ``csrc/lstm_common.cuh``
+train_fwd_kernel) and the lockstep peer forward
+(``ops.lstm_align.peer_fwd``; ``csrc/lstm_align.cu`` on ``lstm_mma.cuh``'s
+encoder).
 
 Run from the root of a checkout: ``python3 scripts/torch_align_train_probe.py``.
 ``--checkout DIR`` imports the port (and its ``chip_smoke.py``) from another
@@ -23,23 +26,32 @@ Prints, on the card it finds (it fails without one):
    body (``chip_smoke.report_lstm_mma``);
 2. the kernels against their plain versions at the card tests' shapes, in
    both compute types and residual types: the largest gap of each output
-   relative to max|plain| (the backwards' f32 gate 1e-4; the peer forward's
+   relative to max|plain| (the backwards' f32 gate 1e-4; the forwards'
    absolute, gate 1e-5), whether a repeat is bit-equal, and whether a
-   permuted batch gives the permuted answer bit for bit;
+   permuted batch gives the permuted answer bit for bit; the training
+   forwards and backwards also at hidden 256 and at 8 layers;
 3. times, CUDA events, in turns (``chip_smoke.in_turns``) within the
    process, on bf16 residuals: the decoder backward at
    ``stacked-ss-crossuser-10s``'s shape (B = 4096, T = 100, L = 2, C = 128,
    per step) and at row 6's (B = 4096, T = 30, L = 2, static C = 128 and
    64), the peer forward at B = 4096, K = 7, T = 100, C = 128, and the
    serve tier's peer context at the same shape (the body they share), each
-   in f32 and bf16 compute; and row 5's backward at the 10 s encoder's shape
+   in f32 and bf16 compute; row 5's backward at the 10 s encoder's shape
    (B = 4096, T = 100, L = 2, on the f32 residuals it trains with; cuDNN's
    backward data in f32 beside it) and at ``seq2seq-tf-30``'s (B = 4096,
-   T = 30, L = 1, bf16 residuals), in both compute types;
-4. unless ``--self-only``: the time split of the probe build
-   (``-DSSB_PROBE``: thread 0 of every block adds its ``clock64`` deltas a
-   part, ``SsbPart`` order) of the decoder backward and of row 5's at the
-   10 s shapes in both compute types;
+   T = 30, L = 1, bf16 residuals), in both compute types; and the three
+   forwards alone at the same shapes (the decoder's at the 10 s and row 6
+   shapes, row 5's at the 10 s encoder's, cuDNN's f32 forward beside it,
+   and at ``seq2seq-tf-30``'s), in both compute types; then the widths and
+   depths the backwards take again (hidden 256, L = 2, and 8 layers of
+   hidden 128 at B = 4096: row 5's forward and backward at T = 100, the
+   decoder's at T = 30 with a static context of 128), where the checkout's
+   choosers take them ("refused" where they do not);
+4. unless ``--self-only``: the time split of the probe builds
+   (``-DSSB_PROBE`` and ``-DLSTM_PROBE``: thread 0 of every block adds its
+   ``clock64`` deltas a part, ``SsbPart`` and ``LstmPart`` order) of the
+   decoder backward and forward and of row 5's at the 10 s shapes in both
+   compute types;
 5. with ``--steps`` only: the train step (CUDA events, the batch's copy to
    the card included) of ``stacked-ss-crossuser-10s``,
    ``stacked-ss-crossuser`` and ``seq2seq-tf-30`` at B = 4096 in f32 and
@@ -58,7 +70,9 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PARTS = ("loads and above", "cell", "barriers", "products", "epilogue")
+PARTS = ("loads and above", "cell", "barriers", "products", "epilogue")  # SsbPart
+FWD_PARTS = ("x and ctx staging", "products", "cell and residual stores", "publish", "barriers", "feedback",
+             "states")  # LstmPart
 F32, BF = torch.float32, torch.bfloat16
 
 
@@ -163,6 +177,51 @@ def check_fwd(chip_smoke, dev, lstm_align):
     return out
 
 
+def check_train_fwd(chip_smoke, dev, lstm_train, lstm_ss, lstm_align):
+    """2. for the training forwards: each against its plain version (the
+    largest absolute gap over ys and the residuals), repeats; the backward
+    fed the kernel's residuals (relative gap), at hidden 256 and 8 layers
+    too."""
+    out = {}
+    for batch, layers, d, t, h in ((4099, 1, 3, 30, 128), (300, 2, 3, 100, 128), (257, 2, 131, 30, 128),
+                                   (8200, 1, 3, 4, 128), (100, 2, 3, 8, 256), (65, 8, 3, 6, 128)):
+        ps, (xs, h0, c0), up = chip_smoke.lstm_case(dev, batch, layers, seed=batch + d, t=t, d=d, h=h)
+        for rd in (F32, BF):
+            for cd in (F32, BF):
+                got = lstm_train.lstm_fwd(ps, xs, h0, c0, rd, cd)
+                again = lstm_train.lstm_fwd(ps, xs, h0, c0, rd, cd)
+                ref = lstm_train._forward_reference(ps, xs, h0, c0, rd, cd)
+                flat = lambda r: [*r.hs, *r.cs, *r.gs]  # noqa: E731
+                bw = lstm_train.lstm_bwd(ps, c0, got, *up, compute_dtype=cd)
+                bref = lstm_train._bwd_recurrence_reference(ps, c0, got, *up, cd)
+                out[f"lstm_fwd B={batch} L={layers} D={d} T={t} H={h} {tag(rd, cd)}"] = {
+                    "abs_gap": max(abs_gaps(flat(got), flat(ref))),
+                    "repeat_bit_equal": all(map(torch.equal, flat(got), flat(again))),
+                    "bwd_rel_gap": max(rel_gaps([*bw[0], *bw[1:]], [*bref[0], *bref[1:]]))}
+    for batch, layers, c, step, t, h in ((4099, 2, 128, False, 30, 128), (4099, 2, 64, False, 30, 128),
+                                         (300, 2, 128, True, 100, 128), (100, 2, 128, False, 8, 256),
+                                         (100, 2, 128, True, 8, 256), (65, 8, 128, True, 6, 128)):
+        rng = np.random.default_rng(batch + c)
+        ps, a = chip_smoke.ss_case(dev, batch, layers, c, "bernoulli", seed=batch + c, t=t, h=h)
+        ctx = torch.tensor(rng.normal(size=(batch, t, c)).astype(np.float32) * 0.5, device=dev) if step else a["ctx"]
+        fwd = (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], ctx)
+        kern, bkern = (lstm_align.dec_fwd, lstm_align.dec_bwd) if step else (lstm_ss.ss_fwd, lstm_ss.ss_bwd)
+        for rd in (F32, BF):
+            for cd in (F32, BF):
+                ys, res = kern(*fwd, rd, cd)
+                ys2, res2 = kern(*fwd, rd, cd)
+                yr, rr = lstm_ss._forward_reference(*fwd, rd, cd)
+                flat = lambda y, r: [y, *r.hs, *r.cs, *r.gs]  # noqa: E731
+                bargs = (ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], c)
+                bw = bkern(*bargs, cd)
+                bref = lstm_ss._bwd_recurrence_reference(*bargs, step_ctx=step, compute_dtype=cd)
+                out[f"{'dec_fwd' if step else 'ss_fwd'} B={batch} L={layers} C={c} T={t} H={h} {tag(rd, cd)}"] = {
+                    "abs_gap": max(abs_gaps(flat(ys, res), flat(yr, rr))),
+                    "repeat_bit_equal": all(map(torch.equal, flat(ys, res), flat(ys2, res2))),
+                    "bwd_rel_gap": max(rel_gaps([*bw[0], *bw[1:]], [*bref[0], *bref[1:]]))}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checkout", default=str(ROOT), help="the checkout whose port to import")
@@ -183,12 +242,14 @@ def main():
     dev = torch.device("cuda:0")
     if args.steps:
         return time_steps(chip_smoke, dev, smi)
-    with ThreadPoolExecutor(max_workers=6) as pool:  # one nvcc each, started together
+    with ThreadPoolExecutor(max_workers=8) as pool:  # one nvcc each, started together
         jobs = {name: pool.submit(_build.build, name) for name in ("lstm_ss", "lstm_align", "fused_serve",
                                                                     "lstm_train")}
         if not args.self_only:
             jobs["probe"] = pool.submit(_build.build, "lstm_align", ("SSB_PROBE",))
             jobs["probe_tf"] = pool.submit(_build.build, "lstm_train", ("SSB_PROBE",))
+            jobs["probe_fwd"] = pool.submit(_build.build, "lstm_align", ("LSTM_PROBE",))
+            jobs["probe_tf_fwd"] = pool.submit(_build.build, "lstm_train", ("LSTM_PROBE",))
         builds = {k: j.result() for k, j in jobs.items()}
     for k, b in builds.items():
         print(f"build {k}: {b.seconds:.1f} s; {chip_smoke.ptxas_report(b.log)}", flush=True)
@@ -203,6 +264,9 @@ def main():
               f"{json.dumps(check_fwd(chip_smoke, dev, lstm_align))}", flush=True)
         print(f"row 5's backward against plain (max gap / max|plain| of dgates.., dxs, dh0, dc0; f32 gate 1e-4, "
               f"bf16 compute 1e-2): {json.dumps(check_tf_bwd(chip_smoke, dev, lstm_train))}", flush=True)
+        print(f"the training forwards against plain (max abs gap over ys and the residuals, f32 gate 1e-5; the "
+              f"backward fed their residuals, max gap / max|plain|): "
+              f"{json.dumps(check_train_fwd(chip_smoke, dev, lstm_train, lstm_ss, lstm_align))}", flush=True)
 
     # 3. times
     B = chip_smoke.TRAIN_B
@@ -215,6 +279,7 @@ def main():
     peer_xs = a["pxs"].reshape(B, 7, 100, 3)
     for cd in (F32, BF):
         n = str(cd)[6:]
+        calls[f"dec_fwd 10s {n}"] = lambda cd=cd: lstm_align.dec_fwd(*fwd, BF, cd)
         calls[f"dec_bwd 10s {n}"] = lambda cd=cd: lstm_align.dec_bwd(*bargs10, cd)
         calls[f"peer_fwd 10s {n}"] = lambda cd=cd: lstm_align.peer_fwd(a["peer"], a["pxs"], a["pwt"], BF, cd)
         calls[f"peer_context serve {n}"] = lambda cd=cd: fused_lstm.peer_context(a["peer"], peer_xs, a["pwt"],
@@ -224,6 +289,8 @@ def main():
         res6 = lstm_ss.ss_fwd(*chip_smoke.ss_fwd_args(ps6, a6), BF)[1]
         b6 = (ps6, a6["proj_w"], a6["c0"], a6["coins"], res6, a6["dys"], c)
         for cd in (F32, BF):
+            calls[f"ss_fwd T=30 C={c} {str(cd)[6:]}"] = (lambda ps6=ps6, a6=a6, cd=cd: lstm_ss.ss_fwd(
+                *chip_smoke.ss_fwd_args(ps6, a6), BF, cd))
             calls[f"ss_bwd T=30 C={c} {str(cd)[6:]}"] = lambda b6=b6, cd=cd: lstm_ss.ss_bwd(*b6, cd)
     iters = {k: (5 if "10s" in k or "serve" in k else 10) for k in calls}
     ms = chip_smoke.in_turns(calls, iters)
@@ -234,8 +301,10 @@ def main():
     for label, layers, t, rd in (("10s encoder", 2, 100, F32), ("seq2seq-tf-30", 1, 30, BF)):
         ps5, (xs, h0, c0), up = chip_smoke.lstm_case(dev, B, layers, seed=12, t=t)
         res5 = lstm_train.lstm_fwd(ps5, xs, h0, c0, rd)
-        tf_args[label] = (ps5, c0, res5, up)
+        tf_args[label] = (ps5, c0, res5, up, xs, h0)
         for cd in (F32, BF):
+            tf_calls[f"lstm_fwd {label} {str(cd)[6:]}"] = (lambda ps5=ps5, xs=xs, h0=h0, c0=c0, rd=rd, cd=cd:
+                                                           lstm_train.lstm_fwd(ps5, xs, h0, c0, rd, cd))
             tf_calls[f"lstm_bwd {label} {str(cd)[6:]}"] = (lambda a=tf_args[label], cd=cd: lstm_train.lstm_bwd(
                 *a[:3], *a[3], compute_dtype=cd))
         if label == "10s encoder":  # cuDNN's backward data in f32, the yardstick
@@ -245,9 +314,58 @@ def main():
             y, (hn, cn) = net(x_g, (h0_g, c0_g))
             tf_calls[f"cudnn_bwd_data {label}"] = lambda y=y, hn=hn, cn=cn, x_g=x_g, h0_g=h0_g, c0_g=c0_g, up=up: \
                 torch.autograd.grad((y, hn, cn), (x_g, h0_g, c0_g), up, retain_graph=True)
+
+            def cudnn_fwd(net=net, xs=xs, h0=h0, c0=c0):
+                with torch.no_grad():
+                    return net(xs, (h0, c0))
+            tf_calls[f"cudnn_fwd {label}"] = cudnn_fwd
     ms = chip_smoke.in_turns(tf_calls, {k: 5 if "10s" in k else 10 for k in tf_calls})
-    print(f"row 5's backward alone at B={B} (ms a call, CUDA events, in turns; the 10 s encoder T = 100, L = 2, "
-          f"f32 residuals; seq2seq-tf-30 T = 30, L = 1, bf16 residuals; {smi}): {json.dumps(ms)}", flush=True)
+    print(f"row 5's forward and backward alone at B={B} (ms a call, CUDA events, in turns; the 10 s encoder "
+          f"T = 100, L = 2, f32 residuals; seq2seq-tf-30 T = 30, L = 1, bf16 residuals; cuDNN's f32 forward and "
+          f"backward data beside the 10 s encoder's; {smi}): {json.dumps(ms)}", flush=True)
+    del tf_calls
+    torch.cuda.empty_cache()
+    wide, bounds = {}, {}
+    for h, layers in ((256, 2), (128, 8)):
+        ps5, (xs, h0, c0), up = chip_smoke.lstm_case(dev, B, layers, seed=h + layers, t=100, h=h)
+        ps6, a6 = chip_smoke.ss_case(dev, B, layers, 128, "bernoulli", seed=h + layers, h=h)
+        for cd in (F32, BF):
+            n = f"H={h} L={layers} {str(cd)[6:]}"
+            try:
+                res5 = lstm_train.lstm_fwd(ps5, xs, h0, c0, F32, cd)
+                bw5 = lstm_train.lstm_bwd(ps5, c0, res5, *up, compute_dtype=cd)
+                ys6, res6 = lstm_ss.ss_fwd(*chip_smoke.ss_fwd_args(ps6, a6), BF, cd)
+                b6 = (ps6, a6["proj_w"], a6["c0"], a6["coins"], res6, a6["dys"], 128)
+                bw6 = lstm_ss.ss_bwd(*b6, cd)
+            except ValueError as e:
+                print(f"{n}: refused ({e})", flush=True)
+                continue
+            wide[f"lstm_fwd T=100 {n}"] = lambda ps5=ps5, xs=xs, h0=h0, c0=c0, cd=cd: lstm_train.lstm_fwd(
+                ps5, xs, h0, c0, F32, cd)
+            wide[f"lstm_bwd T=100 {n}"] = lambda ps5=ps5, c0=c0, r=res5, up=up, cd=cd: lstm_train.lstm_bwd(
+                ps5, c0, r, *up, compute_dtype=cd)
+            wide[f"ss_fwd T=30 C=128 {n}"] = lambda ps6=ps6, a6=a6, cd=cd: lstm_ss.ss_fwd(
+                *chip_smoke.ss_fwd_args(ps6, a6), BF, cd)
+            wide[f"ss_bwd T=30 C=128 {n}"] = lambda b6=b6, cd=cd: lstm_ss.ss_bwd(*b6, cd)
+            # the bounds, as chip_smoke.py's: the products at three-pass TF32 or bf16, the bytes once
+            peak = chip_smoke.TF32X3_FLOPS if cd == F32 else chip_smoke.BF16_FLOPS
+            w5, w6 = [t for p in ps5 for t in p], [t for p in ps6 for t in p]
+            flop5 = chip_smoke.stack_flop(B, 100, [3] + [h] * (layers - 1), h)
+            flop6 = chip_smoke.stack_flop(B, 30, [3 + 128] + [h] * (layers - 1), h)
+            r5, r6 = [*res5.hs, *res5.cs, *res5.gs], [*res6.hs, *res6.cs, *res6.gs]
+            bounds[f"lstm_fwd T=100 {n}"] = chip_smoke.bound(flop5, [xs, h0, c0, *w5], r5, peak)
+            bounds[f"lstm_bwd T=100 {n}"] = chip_smoke.bound(flop5, [c0, *up, *w5, *res5.cs, *res5.gs],
+                                                             [*bw5[0], *bw5[1:]], peak)
+            a6_in = [a6[k] for k in ("h0", "c0", "y0", "teacher", "coins", "ctx", "proj_w", "proj_b")]
+            bounds[f"ss_fwd T=30 C=128 {n}"] = chip_smoke.bound(flop6, a6_in + w6, [ys6, *r6], peak)
+            bounds[f"ss_bwd T=30 C=128 {n}"] = chip_smoke.bound(
+                flop6, [a6["dys"], a6["c0"], a6["coins"], a6["proj_w"], *w6, *res6.cs, *res6.gs],
+                [*bw6[0], *bw6[1:6], bw6[6]], peak)
+    if wide:
+        ms = chip_smoke.in_turns(wide, {k: 3 for k in wide})
+        print(f"the widths and depths taken again, alone at B={B} (ms a call, CUDA events, in turns; row 5 on f32 "
+              f"residuals, the decoder on bf16; {smi}): {json.dumps(ms)}; their bounds (ms, by): "
+              f"{json.dumps(bounds)}", flush=True)
     if args.self_only:
         return
 
@@ -267,7 +385,7 @@ def main():
         print(f"dec_bwd {str(cd)[6:]} compute probe build at the 10 s shape ({t_ms:.3f} ms a call; thread 0's "
               f"clock64 a part, summed over the blocks): {json.dumps(split)}", flush=True)
     lib_tf = lstm_train.bind(ctypes.CDLL(str(builds["probe_tf"].path)))
-    ps5, c0, res5, up = tf_args["10s encoder"]
+    ps5, c0, res5, up = tf_args["10s encoder"][:4]
     for cd in (F32, BF):
         run = lambda: lstm_train.launch_bwd(lib_tf, ps5, c0, res5, *up, cd)  # noqa: E731
         run()
@@ -279,6 +397,27 @@ def main():
         split = {p: round(v / total, 4) for p, v in zip(PARTS, buf) if v}
         print(f"lstm_bwd {str(cd)[6:]} compute probe build at the 10 s encoder's shape ({t_ms:.3f} ms a call; "
               f"thread 0's clock64 a part, summed over the blocks): {json.dumps(split)}", flush=True)
+    # the training forward's probe builds (-DLSTM_PROBE): the decoder's at the
+    # 10 s shape, row 5's at the 10 s encoder's
+    lib_f = lstm_align.bind(ctypes.CDLL(str(builds["probe_fwd"].path)))
+    lib_tf_f = lstm_train.bind(ctypes.CDLL(str(builds["probe_tf_fwd"].path)))
+    fbuf = (ctypes.c_ulonglong * len(FWD_PARTS))()
+    xs5, h05 = tf_args["10s encoder"][4:]
+    for label, lib_x, run_of in (
+            ("dec_fwd at the 10 s shape", lib_f, lambda cd: lstm_ss.fwd_launch(
+                lib_f.align_dec_fwd, "dec_fwd", *fwd, BF, cd, step_ctx=True)),
+            ("lstm_fwd at the 10 s encoder's shape", lib_tf_f, lambda cd: lstm_train.launch_fwd(
+                lib_tf_f, ps5, xs5, h05, c0, F32, cd))):
+        for cd in (F32, BF):
+            run_of(cd)
+            torch.cuda.synchronize()
+            lib_x.train_fwd_probe_read(fbuf)
+            t_ms = chip_smoke.cuda_ms(lambda: run_of(cd), 2)
+            lib_x.train_fwd_probe_read(fbuf)
+            total = sum(fbuf)
+            split = {p: round(v / total, 4) for p, v in zip(FWD_PARTS, fbuf) if v}
+            print(f"{label}, {str(cd)[6:]} compute, probe build ({t_ms:.3f} ms a call; thread 0's clock64 a part, "
+                  f"summed over the blocks): {json.dumps(split)}", flush=True)
 
 
 def time_steps(chip_smoke, dev, smi):

@@ -56,7 +56,9 @@ finds (it fails without one):
    262,144, L = 1, 30 steps), the peer context at B = 4096 (beside cuDNN's
    ``nn.LSTM`` in f32, TF32 off) and 65,536, the encoder (row 4) at
    ``stacked-ss-crossuser``'s peer rows, 65,536 (beside cuDNN's ``nn.LSTM``
-   in f32) and 262,144, and three serve calls end to end
+   in f32 and row 5's forward, ``ops.lstm_train.lstm_fwd``: the serve
+   body's training mode from zero states with its residual stores, on bf16
+   residuals) and 262,144, and three serve calls end to end
    (``seq2seq-tf-30`` at B = 262,144, ``stacked-ss-crossuser`` and
    ``stacked-ss-crossuser-10s`` at 65,536). With ``--checkout DIR
    --skip-checks``, another checkout's f32 tier at the same shapes, one
@@ -207,7 +209,7 @@ def f32_calls(chip_smoke, dev):
     from longterm360fov_tpu_torch import cli, windows
     from longterm360fov_tpu_torch.config import get_preset
     from longterm360fov_tpu_torch.models import cross_user, seq2seq
-    from longterm360fov_tpu_torch.ops import fused_lstm
+    from longterm360fov_tpu_torch.ops import fused_lstm, lstm_train
     from longterm360fov_tpu_torch.params import params_from_numpy
 
     f32, calls = torch.float32, {}
@@ -235,6 +237,9 @@ def f32_calls(chip_smoke, dev):
                 xs = chip_smoke.unit_rows(rng, dev, (rows, m.h_out))
                 calls[f"fused_encode {rows} rows"] = lambda xs=xs, peer=peer: fused_lstm.fused_encode([peer], xs)
                 if rows == 65536:
+                    zero = torch.zeros((1, rows, m.ctx_dim), device=dev)
+                    calls[f"lstm_fwd {rows} rows"] = (lambda xs=xs, peer=peer, zero=zero: lstm_train.lstm_fwd(
+                        [peer], xs, zero, zero, torch.bfloat16))
                     net = chip_smoke.cudnn_lstm([peer], 3, dev, training=False, dtype=f32)
 
                     def library(net=net, xs=xs):

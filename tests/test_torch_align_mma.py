@@ -153,35 +153,61 @@ def test_bwd_block_at_the_training_shapes(preset, step_ctx, cd):
 @pytest.mark.parametrize("step_ctx", [False, True])
 @pytest.mark.parametrize("layers", range(1, 9))
 def test_bwd_block_takes_the_first_layout_that_fits(layers, step_ctx, cd):
-    """Deeper stacks keep every layer's carried dh and dc: W rings of 4
-    k-pairs where they fit, else of 2 (f32 at 3 layers, bf16 at 4); refused
-    past that."""
+    """Deeper stacks keep every layer's carried dh and dc: 32 rows with W
+    rings of 4 k-pairs where they fit, else of 2 (f32 at 3 layers, bf16 at
+    4); past that 16 rows (one m16 tile) with a ring of 2, which every depth
+    up to 8 at hidden 128 fits."""
     f32 = cd == torch.float32
     fits = [s for s in lstm_ss._BWD_STAGES if lstm_ss._bwd_smem(128, layers, 128, step_ctx, s, f32) <= SMEM]
-    assert fits or layers > 3  # the card tests' and the presets' depths, in both tiers and context types
     assert fits[:1] == ([4] if layers <= 2 + (not f32) else [2] if layers <= 3 + (not f32) else [])
-    if not fits:
-        with pytest.raises(ValueError, match=f"layers={layers}, hidden=128, ctx_dim=128: .* more than {SMEM}"):
-            lstm_ss.bwd_block(128, layers, 3, 128, cd, step_ctx)
-        return
     geo = lstm_ss.bwd_block(128, layers, 3, 128, cd, step_ctx)
-    assert geo.stages == fits[0]
-    assert geo.smem == lstm_ss._bwd_smem(128, layers, 128, step_ctx, geo.stages, f32) <= SMEM
+    if fits:
+        assert (geo.rows, geo.warps, geo.stages) == (32, 16, fits[0])
+        assert geo.smem == lstm_ss._bwd_smem(128, layers, 128, step_ctx, geo.stages, f32) <= SMEM
+    else:
+        assert (geo.rows, geo.warps, geo.stages) == (16, 16, 2)
+        assert geo.smem == lstm_ss._bwd_smem(128, layers, 128, step_ctx, 2, f32, rows=16) <= SMEM
 
 
-def test_bwd_block_refuses_what_the_kernel_does_not_take():
-    for hidden in (48, 160, 256):
-        with pytest.raises(ValueError, match=f"hidden a multiple of 32 up to 128.*got hidden={hidden}"):
-            lstm_ss.bwd_block(hidden, 2, 3, 0)
-    with pytest.raises(ValueError, match="1..8 layers, got 9"):
-        lstm_ss.bwd_block(128, 9, 3, 128)
-    for d in (0, 9):
-        with pytest.raises(ValueError, match=f"1 <= d <= 8 coordinates a token, got d={d}"):
-            lstm_ss.bwd_block(128, 2, d, 128)
-    for c in (12, 136):
-        with pytest.raises(ValueError, match=f"ctx_dim a multiple of 8 up to hidden .*got ctx_dim={c}, hidden=128"):
-            lstm_ss.bwd_block(128, 2, 3, c)
-    assert lstm_ss.bwd_block(64, 2, 3, 64).warps == 8 and lstm_ss.bwd_block(128, 2, 8, 0, BF).stages == 4
+@pytest.mark.parametrize("cd", [torch.float32, BF])
+@pytest.mark.parametrize("hidden,layers,ctx_dim,rows,warps", [
+    (160, 2, 128, 16, 10),  # two unit blocks a warp above hidden 128, in 16-row blocks
+    (192, 2, 192, 16, 12),
+    (224, 1, 0, 16, 14),
+    (256, 1, 256, 16, 16),
+    (256, 2, 128, 16, 16),
+    (128, 8, 128, 16, 16),  # the deepest stack at hidden 128: one m16 tile of rows
+    (64, 2, 64, 32, 8),  # the shapes taken before keep their block
+    (96, 2, 96, 32, 12),
+    (128, 2, 0, 32, 16),
+])
+def test_bwd_block_refuses_what_the_kernel_does_not_take(hidden, layers, ctx_dim, rows, warps, cd):
+    """The shapes the backward takes (hidden up to 256, 8-layer stacks; the
+    refusals are test_bwd_block_refuses_what_the_kernel_still_does_not_take):
+    the block, within a block's shared memory."""
+    for step_ctx in (False, True):
+        geo = lstm_ss.bwd_block(hidden, layers, 3, ctx_dim, cd, step_ctx)
+        assert (geo.rows, geo.warps) == (rows, warps) and geo.smem <= SMEM
+        assert geo.stages == (2 if rows == 16 else 4)
+        assert geo.smem == lstm_ss._bwd_smem(hidden, layers, ctx_dim, step_ctx, geo.stages, cd == torch.float32,
+                                             rows=rows, unit_blocks=hidden // (8 * warps))
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((48, 2, 3, 0), "hidden a multiple of 32 up to 256.*got hidden=48"),
+    ((288, 1, 3, 0), "hidden a multiple of 32 up to 256.*got hidden=288"),
+    ((512, 1, 3, 0), "hidden a multiple of 32 up to 256.*got hidden=512"),
+    ((128, 9, 3, 128), "1..8 layers, got 9"),
+    ((128, 2, 0, 128), "1 <= d <= 8 coordinates a token, got d=0"),
+    ((128, 2, 9, 128), "1 <= d <= 8 coordinates a token, got d=9"),
+    ((128, 2, 3, 12), "ctx_dim a multiple of 8 up to hidden .*got ctx_dim=12, hidden=128"),
+    ((128, 2, 3, 136), "ctx_dim a multiple of 8 up to hidden .*got ctx_dim=136, hidden=128"),
+    ((256, 4, 3, 256), r"layers=4, hidden=256, ctx_dim=256: .* more than 232448"),
+])
+def test_bwd_block_refuses_what_the_kernel_still_does_not_take(shape, match):
+    """Each shape the backward does not take: a ValueError that names it."""
+    with pytest.raises(ValueError, match=match):
+        lstm_ss.bwd_block(*shape)
 
 
 @pytest.mark.parametrize("cd", [torch.float32, BF])
@@ -294,23 +320,41 @@ def test_teacher_forced_bwd_block_at_the_training_shapes(hidden, layers, d, cd):
                         + (hidden // 8) * 1024 * geo.stages)
 
 
-def test_teacher_forced_bwd_block_refuses_what_the_kernel_does_not_take():
-    """Shapes the FMA backward took and the tensor-core body does not: each
-    refused by a ValueError that names it."""
-    for hidden in (48, 160, 256):
-        with pytest.raises(ValueError, match=f"lstm_seq_states' backward takes hidden a multiple of 32 up to 128.*"
-                                             f"got hidden={hidden}"):
-            lstm_train.bwd_block(hidden, 1, 3)
-    with pytest.raises(ValueError, match="lstm_seq_states' backward takes 1..8 layers, got 9"):
-        lstm_train.bwd_block(128, 9, 3)
-    for d in (0, 137):
-        with pytest.raises(ValueError, match=f"takes 1..136 input columns at hidden=128 .*got d={d}"):
-            lstm_train.bwd_block(128, 1, d)
-    with pytest.raises(ValueError, match=r"backward at d=3 \(3 \+ 0 input columns\): layers=4, hidden=128.* more "
-                                         f"than {SMEM}"):
-        lstm_train.bwd_block(128, 4, 3)
-    for layers in range(5, 9):
-        with pytest.raises(ValueError, match=f"layers={layers}, hidden=128"):
-            lstm_train.bwd_block(128, layers, 3, BF)
-    assert lstm_train.bwd_block(128, 4, 3, BF).stages == 2
+@pytest.mark.parametrize("cd", [torch.float32, BF])
+@pytest.mark.parametrize("shape,want", [
+    # taken: (rows, warps, ring stages) of the block
+    ((160, 1, 3), (16, 10, 2)),  # hidden above 128: two unit blocks a warp, 16 rows
+    ((192, 2, 3), (16, 12, 2)),
+    ((256, 1, 3), (16, 16, 2)),
+    ((256, 2, 264), (16, 16, 2)),  # the widest input: 8 narrow columns, then hidden in n8 tiles
+    ((128, 4, 3), None),  # f32: 16 rows; bf16: 32 rows with a ring of 2
+    ((128, 8, 3), (16, 16, 2)),  # the deepest stack
+    ((128, 8, 131), (16, 16, 2)),
+    # still refused: a ValueError that names the shape
+    ((48, 1, 3), "lstm_seq_states' backward takes hidden a multiple of 32 up to 256.*got hidden=48"),
+    ((288, 1, 3), "lstm_seq_states' backward takes hidden a multiple of 32 up to 256.*got hidden=288"),
+    ((128, 9, 3), "lstm_seq_states' backward takes 1..8 layers, got 9"),
+    ((128, 1, 0), "takes 1..136 input columns at hidden=128 .*got d=0"),
+    ((128, 1, 137), "takes 1..136 input columns at hidden=128 .*got d=137"),
+    ((256, 1, 265), "takes 1..264 input columns at hidden=256 .*got d=265"),
+    ((256, 4, 3), r"backward at d=3 \(3 \+ 0 input columns\): layers=4, hidden=256.* more than"),
+])
+def test_teacher_forced_bwd_block_refuses_what_the_kernel_does_not_take(shape, want, cd):
+    """Shapes the FMA backward took: those the tensor-core body takes again
+    (hidden up to 256, 8-layer stacks), with their blocks; and those it
+    still does not take, each refused by a ValueError that names it (hidden
+    256 at 4 layers in f32 only: the bf16 A buffer is half the size)."""
+    f32 = cd == torch.float32
+    if want is None:
+        want = (16, 16, 2) if f32 else (32, 16, 2)
+    if isinstance(want, str) and not (not f32 and "more than" in want):
+        with pytest.raises(ValueError, match=want):
+            lstm_train.bwd_block(*shape, cd)
+        return
+    if isinstance(want, str):
+        want = (16, 16, 2)
+    geo = lstm_train.bwd_block(*shape, cd)
+    narrow, wide = lstm_train.bwd_split(shape[2])
+    assert (geo.rows, geo.warps, geo.stages) == want
+    assert geo == lstm_ss.bwd_block(shape[0], shape[1], narrow, wide, cd, True)
     assert [lstm_train.bwd_split(d) for d in (1, 8, 9, 16, 136)] == [(1, 0), (8, 0), (1, 8), (8, 8), (8, 128)]

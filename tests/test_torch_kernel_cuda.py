@@ -343,7 +343,7 @@ def test_lstm_seq_states_autograd_matches_the_step_loop():
 
 def test_lstm_train_never_falls_back_on_card():
     ps, (xs, h0, c0), _ = _lstm_case(4, 1, seed=0, h=48)
-    with pytest.raises(ValueError, match="hidden % 32"):
+    with pytest.raises(ValueError, match="hidden a multiple of 32 up to 256, got hidden=48"):
         lstm_train.lstm_fwd(ps, xs, h0, c0)
 
 
@@ -620,8 +620,8 @@ def test_ss_kernels_never_fall_back_on_card():
     ps, a = _ss_case(4, 1, 6, "1", seed=0, t=3)
     with pytest.raises(ValueError, match="ctx_dim % 4"):
         lstm_ss.ss_fwd(*_ss_fwd_args(ps, a))
-    with pytest.raises(ValueError, match="hidden % 32"):
-        lstm_ss.kernel_rows(48, 1, 3, 0)
+    with pytest.raises(ValueError, match="hidden a multiple of 32 up to 256, got hidden=48"):
+        lstm_train.fwd_block(48, 1, 3, 4096, mode="static")
 
 
 # ------------------------------------------- the lockstep-peer tier of fused_serve
@@ -1080,19 +1080,20 @@ def test_peer_fwd_tensor_core_shapes(k, c, batch, t, rd, cd):
 
 
 def test_training_recurrences_refuse_what_their_blocks_do_not_take():
-    """Each shape the new bodies do not take raises ValueError naming it,
-    on the card too (no fall-back): the backward at hidden 160, a context
-    not of whole n8 tiles, d = 9, an f32 stack too deep for a block; the
-    peer forward at ctx_dim 160, d = 9, K = 9 in f32."""
+    """Each shape the bodies do not take raises ValueError naming it, on the
+    card too (no fall-back): the backward at hidden 288, a context not of
+    whole n8 tiles, d = 9 (an f32 stack of 4 layers, refused before, now
+    runs in 16-row blocks); the peer forward at ctx_dim 160, d = 9, K = 9 in
+    f32."""
     rng = np.random.default_rng(0)
     ps = _stack(rng, 3 + 128, 4)
     a = _ss_case(4, 4, 128, "1", seed=0, t=3)[1]
     res = lstm_ss._forward_reference(ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"],
                                      a["coins"], a["ctx"], torch.float32)[1]
-    with pytest.raises(ValueError, match="layers=4, hidden=128, ctx_dim=128"):
-        lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128)
-    assert lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128, BF)[0][0].is_cuda
-    for hidden, c, d, match in ((160, 0, 3, "got hidden=160"), (128, 12, 3, "got ctx_dim=12"),
+    assert lstm_ss.bwd_block(128, 4, 3, 128).rows == 16
+    for cd in COMPUTE:
+        assert lstm_ss.ss_bwd(ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], 128, cd)[0][0].is_cuda
+    for hidden, c, d, match in ((288, 0, 3, "got hidden=288"), (128, 12, 3, "got ctx_dim=12"),
                                 (128, 0, 9, "got d=9")):
         with pytest.raises(ValueError, match=match):
             lstm_ss.bwd_block(hidden, 2, d, c)
@@ -1159,11 +1160,13 @@ def test_f32_encode_refuses_what_it_does_not_take():
     assert _counts([fused_lstm.fused_encode]) == before
 
 
-def _bwd_args(batch, layers, seed, t, d, h, rd):
-    """lstm_bwd's arguments: residuals from the forward kernel in ``rd``,
+def _bwd_args(batch, layers, seed, t, d, h, rd, fwd=True):
+    """lstm_bwd's arguments: residuals from the forward kernel in ``rd`` (or,
+    ``fwd`` False, from its plain version: a shape no kernel takes),
     random upstream dhs_top, dhT and dcT."""
     ps, (xs, h0, c0), up = _lstm_case(batch, layers, seed, t=t, d=d, h=h)
-    return ps, c0, lstm_train.lstm_fwd(ps, xs, h0, c0, rd), up
+    forward = lstm_train.lstm_fwd if fwd else lstm_train._forward_reference
+    return ps, c0, forward(ps, xs, h0, c0, rd), up
 
 
 @pytest.mark.parametrize("cd", COMPUTE)
@@ -1177,6 +1180,12 @@ def _bwd_args(batch, layers, seed, t, d, h, rd):
     (128, 2, 131, 257, 30),  # the crossuser teacher-forced decoder, D = 3 + 128
     (128, 3, 3, 65, 12),     # f32: the ring of 2 k-pairs
     (32, 1, 9, 33, 12),      # one narrow column and one wide n-tile
+    (256, 1, 3, 300, 12),    # hidden 256: two unit blocks a warp, 16-row blocks
+    (160, 2, 3, 65, 8),      # 10 warps: a ragged feedback row split
+    (192, 2, 131, 33, 6),
+    (256, 2, 264, 33, 6),    # the widest input: 8 narrow columns and 32 wide n-tiles
+    (128, 8, 3, 65, 8),      # the deepest stack: 16-row blocks
+    (96, 4, 3, 65, 8),       # 12 warps (the feedback's ragged rows)
 ])
 def test_lstm_bwd_tensor_core_shapes(hidden, layers, d, batch, t, rd, cd):
     ps, c0, res, up = _bwd_args(batch, layers, hidden + d, t, d, hidden, rd)
@@ -1209,20 +1218,134 @@ def test_lstm_bwd_permuted_batch_gives_the_permuted_answer(d, cd):
     assert torch.equal(full[2][:, perm], cut[2]) and torch.equal(full[3][:, perm], cut[3])
 
 
-def test_lstm_bwd_refuses_what_its_block_does_not_take():
-    """Shapes the FMA backward took and ss_bwd_kernel's teacher-forced mode
-    does not: hidden above 128, an input wider than hidden + 8, an f32 stack
-    of 4 layers; each a ValueError naming it, before any launch."""
+@pytest.mark.parametrize("h,layers,d,cd,match", [
+    # the shapes the FMA backward took that the tensor-core body takes again
+    (256, 1, 3, torch.float32, None),
+    (160, 2, 3, BF, None),
+    (128, 4, 3, torch.float32, None),  # refused before: 16-row blocks now
+    (128, 8, 3, BF, None),
+    # still refused, before any launch
+    (288, 1, 3, torch.float32, "got hidden=288"),
+    (128, 1, 137, BF, "got d=137"),
+    (256, 4, 3, torch.float32, r"at d=3 \(3 \+ 0 input columns\): layers=4, hidden=256"),
+])
+def test_lstm_bwd_refuses_what_its_block_does_not_take(h, layers, d, cd, match):
+    """Shapes the FMA backward took: those ss_bwd_kernel's teacher-forced
+    mode takes again (hidden up to 256, deep stacks in 16-row blocks) run;
+    those it does not (hidden above 256, an input wider than hidden + 8, an
+    f32 stack of 4 layers at hidden 256) each raise a ValueError naming
+    them, before any launch."""
+    ps, c0, res, up = _bwd_args(5, layers, 0, 3, d, h, torch.float32, fwd=match is None)
     before = _counts([lstm_train.lstm_bwd])
-    for h, layers, d, cd, match in ((256, 1, 3, torch.float32, "got hidden=256"),
-                                    (128, 1, 137, BF, "got d=137"),
-                                    (128, 4, 3, torch.float32, r"at d=3 \(3 \+ 0 input columns\): layers=4")):
-        ps, c0, res, up = _bwd_args(5, layers, 0, 3, d, h, torch.float32)
-        with pytest.raises(ValueError, match=match):
-            lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=cd)
+    if match is None:
+        assert lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=cd)[0][0].is_cuda
+        assert _counts([lstm_train.lstm_bwd]) == _one_more(before, cd)
+        return
+    with pytest.raises(ValueError, match=match):
+        lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=cd)
     assert _counts([lstm_train.lstm_bwd]) == before
-    ps, c0, res, up = _bwd_args(5, 4, 0, 3, 3, 128, torch.float32)
-    assert lstm_train.lstm_bwd(ps, c0, res, *up, compute_dtype=BF)[0][0].is_cuda  # bf16 takes 4 layers
+
+
+# ------------- the training forwards on the tensor cores, and the widths the backward takes again
+# lstm_seq_states' forward and the scheduled-sampling decoders' (static and
+# per-step context) run csrc/lstm_common.cuh's train_fwd_kernel: three-pass
+# TF32 in f32, bf16 mma.sync in bf16. Their outputs within the "fwd" gate
+# (1e-5 absolute, or one bf16 step on a bf16 residual) of the plain version,
+# at the widths and depths the backward takes (hidden up to 256, 8 layers),
+# in 64-row blocks (a grid of at least 128 of them) and with c in device
+# memory; repeats bit-equal. The backward, fed the kernel's residuals, at
+# the same shapes within the "rec" gate.
+
+
+@pytest.mark.parametrize("cd", COMPUTE)
+@pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden,layers,d,batch,t", [
+    (128, 1, 3, 8200, 4),   # 64-row blocks: the grid keeps 128 of them
+    (128, 8, 3, 65, 6),     # the deepest stack: f32 c in device memory
+    (256, 2, 3, 100, 8),    # the widest hidden
+    (160, 1, 131, 33, 5),   # a wide input in whole k-steps, d = 3 + C
+    (256, 1, 264, 40, 4),   # the widest input the backward takes
+    (32, 3, 1, 70, 9),
+])
+def test_lstm_fwd_tensor_core_shapes(hidden, layers, d, batch, t, rd, cd):
+    ps, (xs, h0, c0), _ = _lstm_case(batch, layers, seed=hidden + d, t=t, d=d, h=hidden)
+    before = _counts([lstm_train.lstm_fwd])
+    res = lstm_train.lstm_fwd(ps, xs, h0, c0, rd, cd)
+    again = lstm_train.lstm_fwd(ps, xs, h0, c0, rd, cd)
+    torch.cuda.synchronize()
+    assert _counts([lstm_train.lstm_fwd]) == [(n + 2 * (cd != BF), m + 2 * (cd == BF)) for n, m in before]
+    geo = lstm_train.fwd_block(hidden, layers, d, batch, cd)
+    assert geo.rp == (64 if batch >= 8192 else 32) and -(-batch // geo.rp) >= min(128, -(-batch // 32))
+    assert lstm_train._library().lstm_fwd_smem(geo.rp, d, hidden, layers, int(geo.c_smem), int(cd == BF)) == geo.smem
+    refs = _plains(cd, lambda c: lstm_train._forward_reference(ps, xs, h0, c0, rd, c))
+    assert all(x.dtype == rd for x in _fwd(res))
+    _check(_fwd(res), [_fwd(r) for r in refs], "fwd", cd)
+    assert all(map(torch.equal, _fwd(res), _fwd(again)))
+
+
+def _ss_wide_case(batch, layers, ctx_dim, hidden, seed, t, step, d=3):
+    """A decoder of ``hidden`` units and its inputs: bernoulli coins, a
+    static (B, C) or per-step (B, T, C) context."""
+    rng = np.random.default_rng(seed)
+    ps = _stack(rng, d + ctx_dim, layers, hidden)
+    ctx = None
+    if ctx_dim:
+        ctx = _cuda(rng, (batch, t, ctx_dim) if step else (batch, ctx_dim), 0.5)
+    coins = torch.tensor((rng.random((t, batch, 1)) < 0.5).astype(np.float32), device="cuda")
+    return ps, dict(proj_w=_cuda(rng, (hidden, d), 0.1), proj_b=_cuda(rng, (d,), 0.1),
+                    h0=_cuda(rng, (layers, batch, hidden), 0.3), c0=_cuda(rng, (layers, batch, hidden), 0.3),
+                    y0=_cuda(rng, (batch, d), 0.1), teacher=_cuda(rng, (t, batch, d), 0.1), coins=coins, ctx=ctx,
+                    dys=_cuda(rng, (batch, t, d)))
+
+
+@pytest.mark.parametrize("cd", COMPUTE)
+@pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("step,hidden,layers,c,d,batch,t", [
+    (False, 128, 2, 128, 3, 8200, 3),  # row 6 in 64-row blocks
+    (True, 128, 2, 128, 3, 300, 20),   # row 7, the 10 s decoder cut in B and T
+    (False, 256, 2, 128, 3, 70, 8),    # the widest hidden: two unit blocks a warp in the backward
+    (True, 192, 1, 192, 3, 40, 6),
+    (False, 128, 8, 64, 3, 33, 5),     # the deepest stack: 16-row backward blocks
+    (True, 128, 8, 128, 3, 33, 5),
+    (False, 160, 2, 8, 8, 45, 6),      # d = 8, one dctx n-tile; the bf16 context padded to a k16 step
+    (False, 96, 3, 0, 1, 50, 7),       # no context
+])
+def test_ss_fwd_and_bwd_tensor_core_shapes(step, hidden, layers, c, d, batch, t, rd, cd):
+    """The decoder forward (static or per-step context) against its plain
+    version, repeats bit-equal; its backward fed the kernel's residuals."""
+    ps, a = _ss_wide_case(batch, layers, c, hidden, seed=hidden + layers + c, t=t, step=step, d=d)
+    fwd, bwd = (lstm_align.dec_fwd, lstm_align.dec_bwd) if step else (lstm_ss.ss_fwd, lstm_ss.ss_bwd)
+    args = (ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], a["ctx"])
+    before = _counts([fwd, bwd])
+    ys, res = fwd(*args, rd, cd)
+    ys2, res2 = fwd(*args, rd, cd)
+    torch.cuda.synchronize()
+    refs = _plains(cd, lambda x: lstm_ss._forward_reference(*args, rd, x))
+    _check([ys] + _fwd(res), [[y] + _fwd(r) for y, r in refs], "fwd", cd)
+    assert torch.equal(ys, ys2) and all(map(torch.equal, _fwd(res), _fwd(res2)))
+    geo = lstm_train.fwd_block(hidden, layers, d, batch, cd, ctx_dim=c, mode="step" if step else "static")
+    assert lstm_ss._library().ss_fwd_smem(geo.rp, d, c, hidden, layers, int(geo.c_smem), int(step),
+                                          int(cd == BF)) == geo.smem
+    bargs = (ps, a["proj_w"], a["c0"], a["coins"], res, a["dys"], c)
+    out = bwd(*bargs, cd)
+    bws = _plains(cd, lambda x: lstm_ss._bwd_recurrence_reference(*bargs, step_ctx=step, compute_dtype=x))
+    _check(_flat(out), [_flat(b) for b in bws], "rec", cd)
+    assert _counts([fwd, bwd]) == [(n + k * (cd != BF), m + k * (cd == BF)) for (n, m), k in zip(before, (2, 1))]
+
+
+def test_training_forwards_refuse_what_their_blocks_do_not_take():
+    """Shapes the FMA forwards took that the tensor-core forward does not:
+    hidden above 256 (through lstm_seq too), and the decoders' d above 8;
+    each a ValueError naming it, before any launch."""
+    rng = np.random.default_rng(0)
+    before = _counts([lstm_train.lstm_fwd, lstm_ss.ss_fwd])
+    ps = _stack(rng, 3, 1, hidden=288)
+    with pytest.raises(ValueError, match="hidden a multiple of 32 up to 256, got hidden=288"):
+        lstm_train.lstm_seq(ps, _cuda(rng, (4, 5, 3)))
+    ps, a = _ss_wide_case(4, 1, 0, 64, seed=0, t=3, step=False, d=9)
+    with pytest.raises(ValueError, match="d=9"):
+        lstm_ss.ss_fwd(ps, a["proj_w"], a["proj_b"], a["h0"], a["c0"], a["y0"], a["teacher"], a["coins"], None)
+    assert _counts([lstm_train.lstm_fwd, lstm_ss.ss_fwd]) == before
 
 
 # ------------------------------------------------------------- conv_resize kernel

@@ -164,8 +164,8 @@ def test_unported_options_raise():
         lt.lstm_seq_states(*args, torch.float32, torch.float16)
     with pytest.raises(TypeError, match="residual_dtype"):
         lt.lstm_seq_states(*args, torch.float16)
-    with pytest.raises(ValueError, match="hidden % 32"):
-        lt.kernel_rows(48, 1, 3)
+    with pytest.raises(ValueError, match="hidden a multiple of 32 up to 256, got hidden=48"):
+        lt.fwd_block(48, 1, 3, 4096)
 
 
 FWD_FRAC, GRAD_FRAC = 0.2, 0.25  # of the JAX bf16-vs-f32 gap, per output

@@ -319,9 +319,9 @@ def test_ss_wrappers_reject_what_the_kernels_do_not_take():
         lstm_ss.ss_fwd(*args, t["coins"][:, :, 0], t["ctx"])
     with pytest.raises(TypeError):  # f64
         lstm_ss.ss_fwd(*args[:5], t["y0"].double(), t["teacher"], t["coins"], t["ctx"])
-    assert lstm_ss.kernel_rows(128, 2, 3, 128) == 16
-    with pytest.raises(ValueError, match="hidden % 32"):
-        lstm_ss.kernel_rows(48, 1, 3, 0)
+    assert lstm_train.fwd_block(128, 2, 3, 4096, ctx_dim=128, mode="static").rp == 32
+    with pytest.raises(ValueError, match="hidden a multiple of 32 up to 256, got hidden=48"):
+        lstm_train.fwd_block(48, 1, 3, 4096, mode="static")
     with pytest.raises(ValueError, match="rng or explicit coins"):
         tcfg = seq2seq.Seq2SeqConfig(hidden=32, h_in=5, h_out=6, ctx_dim=8)
         p = seq2seq.init(torch.Generator().manual_seed(0), tcfg, device="cpu")
