@@ -326,8 +326,8 @@ ENC_TOL = 1e-5
 # chunks of 16 k-rows, in another order than the plain version's f32;
 # ss_decode's ys too, since its feedback is f32 on both sides; at a static
 # context of unit variance about 4e-6, under the plain f32 version's own gap
-# to a float64 loop, scripts/torch_train_fwd_split_probe.py); with bf16 residuals the same f32 values
-# round to bf16, and a 1e-7 difference may cross a rounding boundary, so
+# to a float64 loop, PERF.md §6 row 6); with bf16 residuals the same f32
+# values round to bf16, and a 1e-7 difference may cross a rounding boundary, so
 # within one bf16 step (at most 2^-7 of the value). The backward, fed the
 # same residuals, within 1e-4 of max|plain| per output: the reductions sum
 # B·T = 122,970 terms in another order.
@@ -650,6 +650,13 @@ WRAPPERS = {name: wrapper for name, _, _, wrapper, _ in KERNELS}
 ERRS = {name: 0.0 for name in WRAPPERS}  # max abs error vs plain over every check
 TIMES = {}  # kernel name -> {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}
 BUILD_LOGS = {}  # kernel source -> nvcc's ptxas report of this run's build
+
+
+@functools.cache
+def sass(path):
+    """cuobjdump -sass of a built library, read once a run."""
+    return subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
 PROBE_BUILD = None  # the probe build of transformer_encode.cu (-DTFM_PROBE: clock64 counters)
 PROBE_TRAIN_BUILD = None  # the same of transformer_encode_train.cu
 PROBE_PARTS = ("prologue", "in_proj", "layer norms", "chunk waits", "mma", "epilogues", "b1 + GELU", "attention",
@@ -1857,7 +1864,16 @@ def drive_training(cfg, path, dev, also, step_tol=STEP_REL_TOL, windows_=None, s
 
 
 WIDE_STEPS = ((256, 2), (128, 8))  # (hidden, layers): the widest and the deepest the backward takes
-WIDE_ROWS = 32  # windows a step: the references of the rounded tiers run on the CPU
+WIDE_ROWS = 64  # windows a step, two forward blocks: the references of the rounded tiers run on the CPU
+# the rounded tiers' step through the kernels against the CPU port's (the
+# same rounding points), loss and gradients relative to max|reference| per
+# leaf, by (compute, residuals): above the largest sound reading and under
+# the gap that the step of the other residual type (and, in f32 compute, of
+# bf16 compute: a kernel rounding where it should not, or not where it
+# should) shows against the same reference: on an H100 the readings were
+# at most 4.4e-5 / 1.3e-3 / 1.6e-3, those controls at least 3.9e-3 /
+# 1.0e-2 / 1.0e-2 (PERF.md §6, the training forwards)
+WIDE_PORT_TOL = {("float32", "bfloat16"): 4e-4, ("bfloat16", "float32"): 5e-3, ("bfloat16", "bfloat16"): 5e-3}
 
 
 def check_wide_steps(dev, smi):
@@ -1867,15 +1883,19 @@ def check_wide_steps(dev, smi):
     train_impl "auto", every forward and backward on the kernels (their
     launches counted), in both compute types and residual types, with the
     same coins (drawn from numpy, teacher_prob 0.5) on WIDE_ROWS windows.
-    Loss and gradients relative to max|reference| per leaf: f32 compute on
-    f32 residuals against plain autograd on the card within STEP_REL_TOL
-    (ALIGN_STEP_REL_TOL for the lockstep decoder) at f32; the rounded tiers
-    (bf16 residuals, bf16 compute) against the CPU port's step, the kernels'
-    plain versions under the same autograd functions with the same rounding
-    points (plain autograd rounds nothing), at the bf16 entry; each one's
-    gap to plain autograd is reported beside it (bf16 residuals round every
-    layer's h, c and gates: the gap grows with depth). Then one
-    make_train_step update, finite."""
+    Loss and gradients relative to max|reference| per leaf: f32 and bf16
+    compute on f32 residuals against plain autograd on the card within
+    STEP_REL_TOL (ALIGN_STEP_REL_TOL for the lockstep decoder) of their
+    compute type; every rounded tier (bf16 residuals, bf16 compute) against
+    the CPU port's step, the kernels' plain versions under the same autograd
+    functions with the same rounding points, within WIDE_PORT_TOL of its
+    tier, beside its controls: the steps of the tiers that differ from it
+    in one of the two types, against its reference, of which the other
+    residual type's (and in f32 compute bf16 compute's) must lie above the
+    limit. Readings are printed before any is held. Each one's gap to plain
+    autograd is reported too (bf16 residuals round every layer's h, c and
+    gates: the gap grows with depth). Then one make_train_step update,
+    finite."""
     draw = seq2seq.draw_coins
     out = {}
 
@@ -1886,6 +1906,8 @@ def check_wide_steps(dev, smi):
                 max((x.cpu() - y.cpu()).abs().max().item() / (y.abs().max().item() or 1.0)
                     for x, y in zip(tree_leaves(g_a), tree_leaves(g_b))))
 
+    tiers = [(tc, rd) for tc in ("float32", "bfloat16") for rd in (F32, BF)]
+    checks, controls = [], []
     try:
         for preset, tol, dec in ((CU_PRESET, STEP_REL_TOL, "ss_decode"), (CU10_PRESET, ALIGN_STEP_REL_TOL,
                                                                           "aligned_dec")):
@@ -1902,43 +1924,63 @@ def check_wide_steps(dev, smi):
                 plain = train.make_grad_fn(cfg.replace(train_impl="xla"), fam.apply, gc_metric=False,
                                            extras_fn=family_fns(fam)["extras_fn"])(
                     state.params, batch, torch.Generator(device=dev), 0.5)
-                for tc in ("float32", "bfloat16"):
+                got, ref, launches = {}, {}, {}
+                for tc, rd in tiers:
                     c = cfg.replace(train_compute=tc)
                     sfx = "_bf16" if tc == "bfloat16" else ""
                     names = [f"lstm_seq_states_fwd{sfx}", f"lstm_seq_states_bwd{sfx}", f"{dec}_fwd{sfx}",
                              f"{dec}_bwd{sfx}"]
-                    for rd in (F32, BF):
-                        grad_fn = train.make_grad_fn(c, fam.apply, gc_metric=False,
-                                                     **family_fns(fam, residual_dtype=rd))
-                        for wrapper in WRAPPERS.values():
-                            wrapper.launches = 0
-                        got = grad_fn(state.params, batch, torch.Generator(device=dev), 0.5)
-                        torch.cuda.synchronize()
-                        launches = {n: WRAPPERS[n].launches for n in names}
-                        if not all(launches.values()):
-                            raise AssertionError(f"{preset} H={hidden} L={layers} {tc}: a kernel of the step never "
-                                                 f"launched: {launches}")
-                        exact = tc == "float32" and rd == F32
-                        ref = plain if exact else grad_fn(cpu, batch, torch.Generator(), 0.5)
-                        l_err, g_err = gaps(got, ref)
-                        lim = tol["float32" if exact else "bfloat16"]
-                        key = f"{preset} H={hidden} L={layers} {tc} compute, {str(rd)[6:]} residuals"
-                        out[key] = {"reference": "plain autograd" if exact else "the CPU port",
-                                    "loss_rel": l_err, "grad_rel": g_err, "limit": lim,
-                                    "to_plain_autograd": gaps(got, plain), "launches": launches}
-                        if not (l_err <= lim and g_err <= lim):
-                            raise AssertionError(f"{key}: the step through the kernels differs from its reference: "
-                                                 f"loss {l_err:.2e}, grads {g_err:.2e} (tolerance {lim})")
-                    new, _ = train.make_train_step(c, fam.apply, train.make_optimizer(c), gc_metric=False,
-                                                   **family_fns(fam))(state, batch)
-                    if not all(torch.isfinite(p).all() for p in tree_leaves(new.params)):
-                        raise AssertionError(f"{preset} H={hidden} L={layers} {tc}: non-finite params after a step")
+                    grad_fn = train.make_grad_fn(c, fam.apply, gc_metric=False, **family_fns(fam, residual_dtype=rd))
+                    for wrapper in WRAPPERS.values():
+                        wrapper.launches = 0
+                    got[tc, rd] = grad_fn(state.params, batch, torch.Generator(device=dev), 0.5)
+                    torch.cuda.synchronize()
+                    launches[tc, rd] = {n: WRAPPERS[n].launches for n in names}
+                    if not all(launches[tc, rd].values()):
+                        raise AssertionError(f"{preset} H={hidden} L={layers} {tc}: a kernel of the step never "
+                                             f"launched: {launches[tc, rd]}")
+                    if (tc, rd) != ("float32", F32):
+                        ref[tc, rd] = grad_fn(cpu, batch, torch.Generator(), 0.5)
+                    if rd == F32:
+                        new, _ = train.make_train_step(c, fam.apply, train.make_optimizer(c), gc_metric=False,
+                                                       **family_fns(fam))(state, batch)
+                        if not all(torch.isfinite(p).all() for p in tree_leaves(new.params)):
+                            raise AssertionError(f"{preset} H={hidden} L={layers} {tc}: non-finite params after a "
+                                                 f"step")
+                for tc, rd in tiers:
+                    tier = (tc, str(rd)[6:])
+                    key = f"{preset} H={hidden} L={layers} {tc} compute, {tier[1]} residuals"
+                    row = out[key] = {"to_plain_autograd": gaps(got[tc, rd], plain), "launches": launches[tc, rd]}
+                    if rd == F32:  # unrounded residuals: plain autograd in the compute type's tolerance
+                        checks.append((key, "plain autograd", row["to_plain_autograd"], tol[tc]))
+                    if tier in WIDE_PORT_TOL:
+                        lim = WIDE_PORT_TOL[tier]
+                        row["to_the_cpu_port"] = gaps(got[tc, rd], ref[tc, rd])
+                        row["limit"] = lim
+                        row["controls"] = {f"{o_tc} compute, {str(o_rd)[6:]} residuals": gaps(got[o_tc, o_rd],
+                                                                                              ref[tc, rd])[1]
+                                           for o_tc, o_rd in tiers if (o_tc == tc) != (o_rd == rd)}
+                        checks.append((key, "the CPU port", row["to_the_cpu_port"], lim))
+                        # the controls the limit must tell apart: the other residual type, and in f32
+                        # compute bf16 compute; bf16 compute's own gap to the port (rounding flips from
+                        # another summation order) is as large as f32 compute's there
+                        held = [f"{o_tc} compute, {str(o_rd)[6:]} residuals" for o_tc, o_rd in tiers
+                                if (o_tc == tc) != (o_rd == rd) and (o_tc == tc or tc == "float32")]
+                        controls.append((key, {k: row["controls"][k] for k in held}, lim))
     finally:
         seq2seq.draw_coins = draw
-    print(f"one train step at hidden 256 (2 layers) and 8 layers (hidden 128), B={WIDE_ROWS}, through the kernels "
-          f"against plain autograd (f32 compute, f32 residuals) or the CPU port's step (the rounded tiers), loss and "
-          f"gradients relative to max|reference| per leaf, and each one's gap to plain autograd ({smi}): "
-          f"{json.dumps(out)}", flush=True)
+    print(f"one train step at hidden 256 (2 layers) and 8 layers (hidden 128), B={WIDE_ROWS}, through the kernels, "
+          f"loss and gradients relative to max|reference| per leaf: to plain autograd (held to STEP_REL_TOL on f32 "
+          f"residuals), to the CPU port's step (the rounded tiers, held to WIDE_PORT_TOL) and, for each, the "
+          f"controls' gradient gaps to the same reference ({smi}): {json.dumps(out)}", flush=True)
+    for key, what, (l_err, g_err), lim in checks:
+        if not (l_err <= lim and g_err <= lim):
+            raise AssertionError(f"{key}: the step through the kernels differs from {what}: loss {l_err:.2e}, grads "
+                                 f"{g_err:.2e} (tolerance {lim})")
+    for key, held, lim in controls:
+        if not min(held.values()) > lim:
+            raise AssertionError(f"{key}: a control is within the limit {lim}, which then cannot tell it apart: "
+                                 f"{held}")
 
 
 def time_training(cfg, state, train_d, path, smi, plain_iters, kernel_iters=20):
@@ -2401,10 +2443,9 @@ def report_tensor_cores(builds):
                "encode_reverse_kernel": ("transformer_encode_train", ("encode_reverse_kernel",))}
     hmma = dict.fromkeys(kernels, 0)
     for source in ("transformer_encode", "transformer_encode_train"):
-        sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
-                               str(builds[source].path)], capture_output=True, text=True, check=True).stdout
+        dump = sass(builds[source].path)
         fn = None
-        for ln in sass.splitlines():
+        for ln in dump.splitlines():
             if "Function :" in ln:
                 fn = next((k for k, (src, parts) in kernels.items()
                            if src == source and all(p in ln for p in parts)), None)
@@ -2426,10 +2467,9 @@ def report_peer_bwd(builds):
     shared memory of the 10 s training shape's block, from the library) and
     the count of HMMA instructions in its SASS; fails if an instance has
     none: both products of every instance run on mma.sync."""
-    sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
-                           str(builds["lstm_align"].path)], capture_output=True, text=True, check=True).stdout
+    dump = sass(builds["lstm_align"].path)
     hmma, fn = {}, None
-    for ln in sass.splitlines():
+    for ln in dump.splitlines():
         if "Function :" in ln:
             fn = ln.split("Function :")[1].strip() if "align_peer_bwd_kernel" in ln else None
             if fn:
@@ -2461,10 +2501,9 @@ def report_lstm_mma(builds):
     shared memory of the serving shapes' blocks, from ops.fused_lstm's
     choosers) and the count of HMMA instructions in their SASS; fails if one
     has none: their products run on mma.sync."""
-    sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
-                           str(builds["fused_serve"].path)], capture_output=True, text=True, check=True).stdout
+    dump = sass(builds["fused_serve"].path)
     hmma, fn = {}, None
-    for ln in sass.splitlines():
+    for ln in dump.splitlines():
         if "Function :" in ln:
             bf16 = "nv_bfloat16" in ln
             fn = next((k for k in ("peer_context_kernel", "fused_encode_kernel", "lstm_cell_kernel",
@@ -2538,10 +2577,9 @@ def report_train_mma(builds):
     if one has none: their products run on mma.sync in both compute tiers."""
     hmma = {}
     for source in ("lstm_ss", "lstm_align", "lstm_train"):
-        sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
-                               str(builds[source].path)], capture_output=True, text=True, check=True).stdout
+        dump = sass(builds[source].path)
         fn = None
-        for ln in sass.splitlines():
+        for ln in dump.splitlines():
             if "Function :" in ln:
                 sym = ln.split("Function :")[1].strip()
                 fn = (source, sym) if any(k in sym for k in ("ss_bwd_kernel", "train_fwd_kernel",
@@ -2620,10 +2658,9 @@ def report_decode_mma(builds):
     in blocks of 64 and of 32 rows: registers, spills and shared memory
     (ptxas; the dynamic shared memory from the library) and the count of
     HMMA instructions in each instance's SASS; fails if one has none."""
-    sass = subprocess.run([os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
-                           str(builds["transformer_decode"].path)], capture_output=True, text=True, check=True).stdout
+    dump = sass(builds["transformer_decode"].path)
     hmma, fn = {}, None
-    for ln in sass.splitlines():
+    for ln in dump.splitlines():
         if "Function :" in ln:
             sym = ln.split("Function :")[1].strip()
             fn = sym if "ar_decode_kernel" in sym else None
@@ -4473,10 +4510,15 @@ def main():
     sources = ("fused_serve", "lstm_train", "lstm_ss", "lstm_align", "conv_resize", "transformer_encode",
                "transformer_decode", "transformer_encode_train")
     global PROBE_BUILD, PROBE_TRAIN_BUILD
+    def build_and_read(name):  # each library's SASS read as soon as it is built, beside the other builds
+        b = _build.build(name)
+        sass(b.path)
+        return b
+
     with ThreadPoolExecutor(max_workers=len(sources) + 2) as pool:
         probes = [pool.submit(_build.build, name, ("TFM_PROBE",))
                   for name in ("transformer_encode", "transformer_encode_train")]
-        builds = dict(zip(sources, pool.map(_build.build, sources)))
+        builds = dict(zip(sources, pool.map(build_and_read, sources)))
         PROBE_BUILD, PROBE_TRAIN_BUILD = (p.result() for p in probes)
     BUILD_LOGS.update({name: b.log for name, b in builds.items()})
     for name, b in builds.items():

@@ -568,7 +568,10 @@ static inline cudaError_t dw_layer(const DwArgs& a, void* zp, float* partial, fl
 // t's products and rounded into z after layer 0 has read ctx_t (the lockstep
 // serve kernel's route); y_t = h_top · proj_w + proj_b on the FMA units from
 // the staging buffer's h_top (rounded where the tier rounds), written f32 to
-// ys and, with the coin of step t + 1, into z's x columns.
+// ys and, with the coin of step t + 1, into z's x columns. The pieces it
+// shares with the serve kernel are lstm_mma.cuh's (zero16, ctx_load,
+// ctx_stage, ctx_land, states_load, publish, project); the x staging stays a
+// lambda in each, since a shared one raised the serve kernels' spills.
 // What bounds it, what it costs and what the design does about it:
 // lstm_train.cu's header.
 // ---------------------------------------------------------------------------
@@ -576,19 +579,12 @@ static inline cudaError_t dw_layer(const DwArgs& a, void* zp, float* partial, fl
 enum SsbMode { SSB_STATIC = 0, SSB_STEP = 1, SSB_TF = 2 };
 constexpr int SSB_MAX_D = 8;  // coordinates a token
 // The f32 forward's products: three-pass TF32 with both operands split to
-// nearest (split_round, TFW_ROUND) and chunks of TFW_CHUNK = 2 k8 steps of
-// fresh accumulators. With the serve kernels' truncating split and chunks of
-// 4 the decoder forward leaves the 1e-5 gate at C = 128 (a static context of
+// nearest (split_round) and chunks of TFW_CHUNK = 2 k8 steps of fresh
+// accumulators. With the serve kernels' truncating split and chunks of 4
+// the decoder forward leaves the 1e-5 gate at C = 128 (a static context of
 // unit variance); this way its gap to a float64 loop is under the plain f32
-// version's own, for about 7 % more time.
-// scripts/torch_train_fwd_split_probe.py builds the other choices
-// (-DTFW_CHUNK=4, -DTFW_ROUND=0) and reads all four (PERF.md §6, row 6).
-#ifndef TFW_CHUNK
-#define TFW_CHUNK 2
-#endif
-#ifndef TFW_ROUND
-#define TFW_ROUND 1
-#endif
+// version's own, for about 7 % more time (PERF.md §6, row 6).
+constexpr int TFW_CHUNK = 2;
 
 struct TrainFwdArgs {
   const uint4* w;              // every layer's W packed for the tier (pack_weights_tf32 / pack_weights), layer after layer
@@ -700,13 +696,10 @@ __global__ void __launch_bounds__(512)
     const int r = i / D;
     z[r * ldz + (i - r * D)] = P::cvt(v);
   };
-  // ctx_t's pieces of 4 columns: piece i is row i / (C / 4), columns 4·(i % (C / 4))..
-  auto ctx_src = [&](int r, int t) {
-    return a.ctx + (STEP_CTX ? ((size_t)(p0 + r) * T + t) * C : (size_t)(p0 + r) * C);
-  };
-  auto ctx_put = [&](int i, float4 v) {
-    const int r = i / (C / 4), c = (i % (C / 4)) * 4;
-    P::put4(z + r * ldz + kx + c, v);
+  auto ctx_src = [&](int t) {  // row r's context of step t
+    return [ctx = a.ctx, p0, T, C, t](int r) {
+      return ctx + (STEP_CTX ? ((size_t)(p0 + r) * T + t) * C : (size_t)(p0 + r) * C);
+    };
   };
   // the decoder's input of step t at row r (< nrows), coordinate d: the
   // teacher where the coin is up, else the previous output y
@@ -715,8 +708,7 @@ __global__ void __launch_bounds__(512)
     return __ldg(a.coins + q) > 0.0f ? __ldg(a.teacher + q * D + d) : y;
   };
 
-  for (int i = tid; i < rp * ldz * (int)sizeof(E) / 16; i += nthr)
-    reinterpret_cast<uint4*>(z)[i] = make_uint4(0, 0, 0, 0);
+  zero16(z, rp * ldz * (int)sizeof(E) / 16);
   __syncthreads();  // z zeroed before x_0, the context and h0 land in it
   if constexpr (TF) {
     for (int i = tid; i < rp * D; i += nthr) x_put(i, x_at(0, i));
@@ -726,30 +718,8 @@ __global__ void __launch_bounds__(512)
       z[r * ldz + d] = P::cvt(x_dec(0, r, d, __ldg(a.y0 + (p0 + r) * D + d)));
     }
   }
-  // the static context, or ctx_0
-  for (int i = tid; i < rp * C / 4; i += nthr) {
-    const int r = i / (C / 4);
-    if (r < nrows) ctx_put(i, __ldg(reinterpret_cast<const float4*>(ctx_src(r, 0) + (i % (C / 4)) * 4)));
-  }
-  // h0 (L, B, H) into z's h columns; c0 into the lanes' slots of every tile:
-  // slot (tile tau, mt·UT + ut, lane) of layer l holds rows r0 + 16·mt + g
-  // and + 8, units u0 + 8·ut + 2t and + 1
-  for (int i = tid; i < L * rp * H / 4; i += nthr) {
-    const int l = i / (rp * H / 4), r = i % (rp * H / 4) / (H / 4), u = i % (H / 4) * 4;
-    const float4 v = r < nrows ? __ldg(reinterpret_cast<const float4*>(a.h0 + ((size_t)l * B + p0 + r) * H + u))
-                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    P::put4(z + r * ldz + kxc + l * H + u, v);
-  }
-  for (int i = tid; i < L * rp * H / 4; i += nthr) {
-    const int l = i / (rp * H / 4), k = i % (rp * H / 4), ln = k % 32, j = k / 32 % (MT * TL::UT);
-    const int tau = k / 32 / (MT * TL::UT), mt = j / TL::UT, ut = j % TL::UT;
-    const int row = tau / bands * TL::ROWS + 16 * mt + (ln >> 2);
-    const int unit = tau % bands * TL::UNITS + 8 * ut + 2 * (ln & 3);
-    const float* src = a.c0 + ((size_t)l * B + p0 + row) * H + unit;
-    const float2 lo = row < nrows ? __ldg(reinterpret_cast<const float2*>(src)) : make_float2(0.0f, 0.0f);
-    const float2 hi = row + 8 < nrows ? __ldg(reinterpret_cast<const float2*>(src + 8 * H)) : make_float2(0.0f, 0.0f);
-    cm[i] = make_float4(lo.x, lo.y, hi.x, hi.y);
-  }
+  ctx_load<P>(z + kx, ldz, rp, nrows, C, ctx_src(0));  // the static context, or ctx_0
+  states_load<P, MT, TL>(z + kxc, ldz, cm, a.h0, a.c0, B, p0, nrows, rp, H, L);
   __syncthreads();  // z and c in place
   pr.mark(LP_STATES);
 
@@ -776,9 +746,8 @@ __global__ void __launch_bounds__(512)
           for (int q = 0; q < 4; ++q)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[mt][ut][q][e] = 0.0f;
-      tile_product<P, MT, TFW_CHUNK, TFW_ROUND>(acc, za + r0 * ldz, (l ? H : kxc) / P::KS, zb + r0 * ldz,
-                                                 H / P::KS, wl + tau % bands * TL::NP * 32 + lane, kstride, ldz,
-                                                 lane);
+      tile_product<P, MT, TFW_CHUNK, true>(acc, za + r0 * ldz, (l ? H : kxc) / P::KS, zb + r0 * ldz, H / P::KS,
+                                            wl + tau % bands * TL::NP * 32 + lane, kstride, ldz, lane);
       pr.mark(LP_PRODUCTS);
       float4* cs4 = cl0 + (size_t)tau * MT * TL::UT * 32;
       cell_res<MT>(
@@ -797,81 +766,35 @@ __global__ void __launch_bounds__(512)
       pr.mark(LP_CELL);
     }
   };
-  // est (the new h of layer l) into z
-  auto publish = [&](int l) {
-    constexpr int EV = 16 / sizeof(E);  // elements a uint4
-    E* zh = z + kxc + l * H;
-    for (int i = tid; i < rp * H / EV; i += nthr) {
-      const int r = i / (H / EV), u = (i % (H / EV)) * EV;
-      *reinterpret_cast<uint4*>(zh + r * ldz + u) = *reinterpret_cast<const uint4*>(est + r * lde + u);
-    }
-  };
 
   for (int t = 0; t < T; ++t) {
     // SSB_TF: the thread's first element of x_t+1, loaded ahead of the products
     const float xr = TF && t + 1 < T && tid < rp * D ? x_at(t + 1, tid) : 0.0f;
-    if (STEP_CTX && t + 1 < T) {  // ctx_t+1 lands in cst during this step's products
-      for (int i = tid; i < rp * C / 4; i += nthr) {
-        const int r = i / (C / 4);
-        const bool ok = r < nrows;
-        cp_async16(cst + 4 * i, ok ? ctx_src(r, t + 1) + (i % (C / 4)) * 4 : a.ctx, ok);
-      }
-      cp_async_commit();
-    }
+    if (STEP_CTX && t + 1 < T) ctx_stage(cst, rp, nrows, C, ctx_src(t + 1), a.ctx);  // ctx_t+1 lands in cst
     pr.mark(LP_STAGE);
     for (int l = 0; l < L; ++l) {
       layer_tiles(l, t);
       __syncthreads();  // every tile of the layer-step read z; the staging is whole
       pr.mark(LP_BARRIERS);
-      publish(l);
+      publish(z + kxc + l * H, ldz, est, lde, rp, H);
       pr.mark(LP_PUBLISH);
       if (l == 0 && t + 1 < T) {  // layer 0 has read x_t and ctx_t
         if constexpr (TF) {
           if (tid < rp * D) x_put(tid, xr);
           for (int i = tid + nthr; i < rp * D; i += nthr) x_put(i, x_at(t + 1, i));
         }
-        if constexpr (STEP_CTX) {
-          cp_async_wait<0>();
-          for (int i = tid; i < rp * C / 4; i += nthr) ctx_put(i, *reinterpret_cast<const float4*>(cst + 4 * i));
-        }
+        if constexpr (STEP_CTX) ctx_land<P>(z + kx, ldz, cst, rp, C);
         pr.mark(LP_STAGE);
       }
       if (!TF && l == L - 1) {
-        // y = h_top · proj_w + proj_b: ys[b, t], and x_t+1 in z. 8 threads a
-        // row: thread part p of row r sums units 32·j + 4·p .. + 3 (j < H /
-        // 32), all D outputs at once, then the 8 parts; the part-0 thread
-        // writes y. Every row of the block, so that whole warps shuffle; rows
-        // past the batch are not written.
-        const int part = tid & 7;
-        for (int r = tid >> 3; r < rp; r += nthr >> 3) {
-          float s[SSB_MAX_D] = {};
-          for (int u = 4 * part; u < H; u += 32) {
-            const float4 hv = P::get4(est + r * lde + u);
-#pragma unroll
-            for (int i = 0; i < SSB_MAX_D; ++i) {
-              if (i < D) {
-                const float4 w = P::get4(pwt + i * H + u);
-                s[i] = fmaf(hv.x, w.x, s[i]);
-                s[i] = fmaf(hv.y, w.y, s[i]);
-                s[i] = fmaf(hv.z, w.z, s[i]);
-                s[i] = fmaf(hv.w, w.w, s[i]);
-              }
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < SSB_MAX_D; ++i) {
-            if (i < D) {
-              s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
-              s[i] += __shfl_xor_sync(0xffffffffu, s[i], 2);
-              s[i] += __shfl_xor_sync(0xffffffffu, s[i], 4);
-              if (part == 0 && r < nrows) {
-                const float y = s[i] + __ldg(a.proj_b + i);
-                a.ys[((size_t)(p0 + r) * T + t) * D + i] = y;
-                if (t + 1 < T) z[r * ldz + i] = P::cvt(x_dec(t + 1, r, i, y));
-              }
-            }
-          }
-        }
+        // y = h_top · proj_w + proj_b: ys[b, t], and with the coin of step
+        // t + 1, x_t+1 in z
+        project<P, SSB_MAX_D>(
+            est, lde, rp, nrows, H, D, a.proj_b, [&](int i, int u) { return P::get4(pwt + i * H + u); },
+            [&](int r, int i, float y) {
+              a.ys[((size_t)(p0 + r) * T + t) * D + i] = y;
+              if (t + 1 < T) z[r * ldz + i] = P::cvt(x_dec(t + 1, r, i, y));
+            });
         pr.mark(LP_FEEDBACK);
       }
       __syncthreads();  // z holds this layer's h (x_t+1, ctx_t+1) for the next layer or step
@@ -1583,8 +1506,8 @@ static int launch_with_smem(Kernel kernel, int grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// The training forward (train_fwd_kernel) in mode MODE: a block of rp rows
-// (32 or 64: whole 32-row warp tiles) and `warps` warps (at most 16), c in
+// The training forward (train_fwd_kernel) in mode MODE: a block of rp = 32
+// rows (one 32-row warp tile) and `warps` warps (at most 16), c in
 // shared memory or, where c_glob is given, in c_glob (grid x layers x rp x
 // hidden floats), as ops/lstm_train.py fwd_block chooses; hidden a multiple
 // of 32 up to 256, 1..8 layers; SSB_TF: d >= 1 input columns, no context;
@@ -1600,7 +1523,7 @@ static inline bool train_fwd_bad_shape(int batch, int t_len, int d, int ctx_dim,
                                        int warps, bool c_smem, int mode, int cbf16) {
   return layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden > 256 || hidden % 32 || batch < 1 ||
          t_len < 1 || d < 1 || (mode != SSB_TF && d > SSB_MAX_D) || ctx_dim < 0 || ctx_dim % 4 ||
-         (mode == SSB_TF && ctx_dim) || (rp != 32 && rp != 64) || warps < 1 || warps > 16 ||
+         (mode == SSB_TF && ctx_dim) || rp != 32 || warps < 1 || warps > 16 ||
          (long long)batch * t_len >= (1LL << 31) ||
          train_fwd_smem(rp, d, ctx_dim, hidden, layers, c_smem, mode, cbf16) > lstm_mma::SMEM_LIMIT;
 }

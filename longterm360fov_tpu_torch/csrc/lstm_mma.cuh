@@ -724,6 +724,123 @@ __host__ __device__ inline long long serve_smem_bytes(int rp, int d, int c, int 
   return s + (step_ctx ? 4LL * rp * c : 0);
 }
 
+// The pieces of the serve body that the training forward (lstm_common.cuh
+// train_fwd_kernel, the decoder phase in a training mode) runs too. Every
+// thread of the block calls each; the block holds rows p0 .. p0 + nrows - 1
+// of the batch in rp rows of z (row stride ldz), the rows past the batch
+// zero where z is read.
+
+// every uint4 of n16 · 16 bytes at p to zero
+__device__ __forceinline__ void zero16(void* p, int n16) {
+  for (int i = threadIdx.x; i < n16; i += blockDim.x) reinterpret_cast<uint4*>(p)[i] = make_uint4(0, 0, 0, 0);
+}
+
+// A context's pieces of 4 columns, piece i row i / (C / 4), columns 4·(i %
+// (C / 4)) .., from src(r) (the row's context of the step): straight into
+// z's context columns zc (ctx_load), or by cp.async into the f32 staging cst
+// (rp x C; ctx_stage, `any` a valid address for the rows past the batch,
+// which land as zeros) and from there into zc once the thread's own copies
+// landed (ctx_land).
+template <typename P, typename Src>
+__device__ __forceinline__ void ctx_load(typename P::E* zc, int ldz, int rp, int nrows, int C, Src src) {
+  for (int i = threadIdx.x; i < rp * C / 4; i += blockDim.x) {
+    const int r = i / (C / 4), c = (i % (C / 4)) * 4;
+    if (r < nrows) P::put4(zc + r * ldz + c, __ldg(reinterpret_cast<const float4*>(src(r) + c)));
+  }
+}
+template <typename Src>
+__device__ __forceinline__ void ctx_stage(float* cst, int rp, int nrows, int C, Src src, const float* any) {
+  for (int i = threadIdx.x; i < rp * C / 4; i += blockDim.x) {
+    const int r = i / (C / 4);
+    const bool ok = r < nrows;
+    cp_async16(cst + 4 * i, ok ? src(r) + (i % (C / 4)) * 4 : any, ok);
+  }
+  cp_async_commit();
+}
+template <typename P>
+__device__ __forceinline__ void ctx_land(typename P::E* zc, int ldz, const float* cst, int rp, int C) {
+  cp_async_wait<0>();
+  for (int i = threadIdx.x; i < rp * C / 4; i += blockDim.x) {
+    const int r = i / (C / 4), c = (i % (C / 4)) * 4;
+    P::put4(zc + r * ldz + c, *reinterpret_cast<const float4*>(cst + 4 * i));
+  }
+}
+
+// Given states: h0 (L, B, H) into z's h columns zh (layer l at zh + l·H),
+// c0 into the lanes' slots cm of every tile TL of MT m-tiles: slot (tile
+// tau, mt·UT + ut, lane) of layer l holds rows r0 + 16·mt + g and + 8,
+// units u0 + 8·ut + 2t and + 1.
+template <typename P, int MT, typename TL>
+__device__ __forceinline__ void states_load(typename P::E* zh, int ldz, float4* cm, const float* __restrict__ h0,
+                                            const float* __restrict__ c0, int B, long long p0, int nrows, int rp,
+                                            int H, int L) {
+  const int bands = H / TL::UNITS;
+  for (int i = threadIdx.x; i < L * rp * H / 4; i += blockDim.x) {
+    const int l = i / (rp * H / 4), r = i % (rp * H / 4) / (H / 4), u = i % (H / 4) * 4;
+    const float4 v = r < nrows ? __ldg(reinterpret_cast<const float4*>(h0 + ((size_t)l * B + p0 + r) * H + u))
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    P::put4(zh + r * ldz + l * H + u, v);
+  }
+  for (int i = threadIdx.x; i < L * rp * H / 4; i += blockDim.x) {
+    const int l = i / (rp * H / 4), k = i % (rp * H / 4), ln = k % 32, j = k / 32 % (MT * TL::UT);
+    const int tau = k / 32 / (MT * TL::UT), mt = j / TL::UT, ut = j % TL::UT;
+    const int row = tau / bands * TL::ROWS + 16 * mt + (ln >> 2);
+    const int unit = tau % bands * TL::UNITS + 8 * ut + 2 * (ln & 3);
+    const float* src = c0 + ((size_t)l * B + p0 + row) * H + unit;
+    const float2 lo = row < nrows ? __ldg(reinterpret_cast<const float2*>(src)) : make_float2(0.0f, 0.0f);
+    const float2 hi = row + 8 < nrows ? __ldg(reinterpret_cast<const float2*>(src + 8 * H)) : make_float2(0.0f, 0.0f);
+    cm[i] = make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+}
+
+// the staging est (the new h of a layer-step, rows of lde) into z's h
+// columns zh of its layer
+template <typename E>
+__device__ __forceinline__ void publish(E* zh, int ldz, const E* est, int lde, int rp, int H) {
+  constexpr int EV = 16 / sizeof(E);  // elements a uint4
+  for (int i = threadIdx.x; i < rp * H / EV; i += blockDim.x) {
+    const int r = i / (H / EV), u = (i % (H / EV)) * EV;
+    *reinterpret_cast<uint4*>(zh + r * ldz + u) = *reinterpret_cast<const uint4*>(est + r * lde + u);
+  }
+}
+
+// y = h_top · proj_w + proj_b on the FMA units from the staging est (h_top
+// as the tier rounds it): 8 threads a row, thread part p of row r summing
+// units 32·j + 4·p .. + 3 (j < H / 32), all D (<= MAXD) outputs at once,
+// then the 8 parts; the part-0 thread of a row in the batch hands output i
+// to sink(r, i, y). Every row of the block, so that whole warps shuffle.
+// w4(i, u): proj_w's column i at units u .. u + 3.
+template <typename P, int MAXD, typename W4, typename Sink>
+__device__ __forceinline__ void project(const typename P::E* est, int lde, int rp, int nrows, int H, int D,
+                                        const float* __restrict__ proj_b, W4 w4, Sink sink) {
+  const int part = threadIdx.x & 7;
+  for (int r = threadIdx.x >> 3; r < rp; r += blockDim.x >> 3) {
+    float s[MAXD] = {};
+    for (int u = 4 * part; u < H; u += 32) {
+      const float4 hv = P::get4(est + r * lde + u);
+#pragma unroll
+      for (int i = 0; i < MAXD; ++i) {
+        if (i < D) {
+          const float4 w = w4(i, u);
+          s[i] = fmaf(hv.x, w.x, s[i]);
+          s[i] = fmaf(hv.y, w.y, s[i]);
+          s[i] = fmaf(hv.z, w.z, s[i]);
+          s[i] = fmaf(hv.w, w.w, s[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MAXD; ++i) {
+      if (i < D) {
+        s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
+        s[i] += __shfl_xor_sync(0xffffffffu, s[i], 2);
+        s[i] += __shfl_xor_sync(0xffffffffu, s[i], 4);
+        if (part == 0 && r < nrows) sink(r, i, s[i] + __ldg(proj_b + i));
+      }
+    }
+  }
+}
+
 template <typename P, int MT, bool STEP_CTX>
 __device__ __forceinline__ void server(const float* __restrict__ past, const float* __restrict__ ctx,
                                        float* __restrict__ out, const uint4* __restrict__ w_enc,
@@ -800,20 +917,10 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
       pr.mark(LP_CELL);
     }
   };
-  // est (the new h of layer l) into z
-  auto publish = [&](int l) {
-    constexpr int EV = 16 / sizeof(E);  // elements a uint4
-    E* zh = z + kxc + l * H;
-    for (int i = tid; i < rp * H / EV; i += nthr) {
-      const int r = i / (H / EV), u = (i % (H / EV)) * EV;
-      *reinterpret_cast<uint4*>(zh + r * ldz + u) = *reinterpret_cast<const uint4*>(est + r * lde + u);
-    }
-  };
   // the layer-l slice of a phase's packed W (k_in0 + H k-rows at layer 0)
   auto w_layer = [&](const uint4* w_all, int k_in0, int l) {
     return w_all + (l ? (size_t)((k_in0 + H) / P::KS + (l - 1) * (2 * H / P::KS)) * kstride : 0);
   };
-  // x_t into z[r][0 .. D): element i of the block's rp x D, 0 past the rows
   auto x_at = [&](int t, int i) {
     const int r = i / D, d = i - r * D;
     return r < nrows ? ldg_now(past + ((p0 + r) * T_in + t) * D + d) : 0.0f;
@@ -822,48 +929,24 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
     const int r = i / D;
     z[r * ldz + (i - r * D)] = P::cvt(v);
   };
-  // ctx_t's pieces of 4 columns: piece i is row i / (C / 4), columns 4·(i % (C / 4))..
-  auto ctx_src = [&](int r, int t) {
-    return ctx + (STEP_CTX ? ((size_t)(p0 + r) * T_out + t) * C : (size_t)(p0 + r) * C);
-  };
-  auto ctx_put = [&](int i, float4 v) {
-    const int r = i / (C / 4), c = (i % (C / 4)) * 4;
-    P::put4(z + r * ldz + kx + c, v);
+  auto ctx_src = [&](int t) {  // row r's context of step t
+    return [ctx, p0, T_out, C, t](int r) {
+      return ctx + (STEP_CTX ? ((size_t)(p0 + r) * T_out + t) * C : (size_t)(p0 + r) * C);
+    };
   };
 
-  for (int i = tid; i < L * rp * H / 4; i += nthr) cm[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int i = tid; i < rp * ldz * (int)sizeof(E) / 16; i += nthr)
-    reinterpret_cast<uint4*>(z)[i] = make_uint4(0, 0, 0, 0);
+  zero16(cm, L * rp * H / 4);
+  zero16(z, rp * ldz * (int)sizeof(E) / 16);
   for (int i = tid; i < D * H; i += nthr) pwt[i] = P::wide(proj_w[(i % H) * D + i / H]);
   const bool states = STATES && h0 != nullptr;
   const uint4* wa = states ? w_enc : w_phase(w_enc, kx);
   __syncthreads();  // z zeroed before x_0 and the first context land in it
   for (int i = tid; i < rp * D; i += nthr) x_put(i, x_at(0, i));
   // the static context, or ctx_0: z's ctx columns, which the encoder does not read
-  for (int i = tid; i < rp * C / 4; i += nthr) {
-    const int r = i / (C / 4);
-    if (r < nrows) ctx_put(i, __ldg(reinterpret_cast<const float4*>(ctx_src(r, 0) + (i % (C / 4)) * 4)));
-  }
+  ctx_load<P>(z + kx, ldz, rp, nrows, C, ctx_src(0));
   if constexpr (STATES) {
-    if (states) {  // given states: h0 (L, B, H) into z's h columns, c0 into the lanes' slots of every tile
-      for (int i = tid; i < L * rp * H / 4; i += nthr) {
-        const int l = i / (rp * H / 4), r = i % (rp * H / 4) / (H / 4), u = i % (H / 4) * 4;
-        const float4 v = r < nrows ? __ldg(reinterpret_cast<const float4*>(h0 + ((size_t)l * B + p0 + r) * H + u))
-                                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        P::put4(z + r * ldz + kxc + l * H + u, v);
-      }
-      // slot (tile tau, mt·UT + ut, lane) of layer l: rows r0 + 16·mt + g and + 8, units u0 + 8·ut + 2t and + 1
-      for (int i = tid; i < L * rp * H / 4; i += nthr) {
-        const int l = i / (rp * H / 4), k = i % (rp * H / 4), ln = k % 32, j = k / 32 % (MT * TL::UT);
-        const int tau = k / 32 / (MT * TL::UT), mt = j / TL::UT, ut = j % TL::UT;
-        const int row = tau / bands * TL::ROWS + 16 * mt + (ln >> 2);
-        const int unit = tau % bands * TL::UNITS + 8 * ut + 2 * (ln & 3);
-        const float* src = c0 + ((size_t)l * B + p0 + row) * H + unit;
-        const float2 lo = row < nrows ? __ldg(reinterpret_cast<const float2*>(src)) : make_float2(0.0f, 0.0f);
-        const float2 hi = row + 8 < nrows ? __ldg(reinterpret_cast<const float2*>(src + 8 * H))
-                                          : make_float2(0.0f, 0.0f);
-        cm[i] = make_float4(lo.x, lo.y, hi.x, hi.y);
-      }
+    if (states) {  // given states: h0 into z's h columns, c0 into the lanes' slots of every tile
+      states_load<P, MT, TL>(z + kxc, ldz, cm, h0, c0, B, p0, nrows, rp, H, L);
       pr.mark(LP_STATES);
     }
   }
@@ -879,7 +962,7 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
       layer_tiles(w_layer(wa, kx, l), b_enc[l], l ? z + kxc + (l - 1) * H : z, (l ? H : kx) / P::KS, l);
       __syncthreads();  // every tile of the layer-step read z; the staging is whole
       pr.mark(LP_BARRIERS);
-      publish(l);
+      publish(z + kxc + l * H, ldz, est, lde, rp, H);
       pr.mark(LP_PUBLISH);
       if (l == 0 && t + 1 < T_in) {  // layer 0 has read x_t
         if (tid < rp * D) x_put(tid, xr);
@@ -898,60 +981,27 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
   pr.mark(LP_FEEDBACK);
   for (int t = 0; t < T_out; ++t) {
     if (STEP_CTX && t + 1 < T_out) {  // ctx_t+1 lands in cst during this step's products
-      for (int i = tid; i < rp * C / 4; i += nthr) {
-        const int r = i / (C / 4);
-        const bool ok = r < nrows;
-        cp_async16(cst + 4 * i, ok ? ctx_src(r, t + 1) + (i % (C / 4)) * 4 : ctx, ok);
-      }
-      cp_async_commit();
+      ctx_stage(cst, rp, nrows, C, ctx_src(t + 1), ctx);
       pr.mark(LP_STAGE);
     }
     for (int l = 0; l < L; ++l) {
       layer_tiles(w_layer(wa, kxc, l), b_dec[l], l ? z + kxc + (l - 1) * H : z, (l ? H : kxc) / P::KS, l);
       __syncthreads();
       pr.mark(LP_BARRIERS);
-      publish(l);
+      publish(z + kxc + l * H, ldz, est, lde, rp, H);
       pr.mark(LP_PUBLISH);
       if (l == L - 1) {  // y = h_top · proj_w + proj_b: out[b, t], and the next step's y in z
-        // 8 threads a row: thread part p of row r sums units 32·j + 4·p .. + 3 (j < H / 32), all D
-        // outputs at once, then the 8 parts; the part-0 thread writes y. Every row of the block, so
-        // that whole warps shuffle; rows past the batch are not written.
-        const int part = tid & 7;
-        for (int r = tid >> 3; r < rp; r += nthr >> 3) {
-          float s[SERVE_MAX_D] = {};
-          for (int u = 4 * part; u < H; u += 32) {
-            const float4 hv = P::get4(est + r * lde + u);
-            const float* pw = pwt + u;
-#pragma unroll
-            for (int i = 0; i < SERVE_MAX_D; ++i) {
-              if (i < D) {
-                const float4 w = *reinterpret_cast<const float4*>(pw + i * H);
-                s[i] = fmaf(hv.x, w.x, s[i]);
-                s[i] = fmaf(hv.y, w.y, s[i]);
-                s[i] = fmaf(hv.z, w.z, s[i]);
-                s[i] = fmaf(hv.w, w.w, s[i]);
-              }
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < SERVE_MAX_D; ++i) {
-            if (i < D) {
-              s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
-              s[i] += __shfl_xor_sync(0xffffffffu, s[i], 2);
-              s[i] += __shfl_xor_sync(0xffffffffu, s[i], 4);
-              if (part == 0 && r < nrows) {
-                const float y = s[i] + __ldg(proj_b + i);
-                out[((size_t)(p0 + r) * T_out + t) * D + i] = y;
-                z[r * ldz + i] = P::cvt(y);
-              }
-            }
-          }
-        }
+        project<P, SERVE_MAX_D>(
+            est, lde, rp, nrows, H, D, proj_b,
+            [&](int i, int u) { return *reinterpret_cast<const float4*>(pwt + i * H + u); },
+            [&](int r, int i, float y) {
+              out[((size_t)(p0 + r) * T_out + t) * D + i] = y;
+              z[r * ldz + i] = P::cvt(y);
+            });
         pr.mark(LP_FEEDBACK);
       }
       if (STEP_CTX && l == 0 && t + 1 < T_out) {  // layer 0 has read ctx_t: ctx_t+1 into z
-        cp_async_wait<0>();
-        for (int i = tid; i < rp * C / 4; i += nthr) ctx_put(i, *reinterpret_cast<const float4*>(cst + 4 * i));
+        ctx_land<P>(z + kx, ldz, cst, rp, C);
         pr.mark(LP_STAGE);
       }
       __syncthreads();  // z holds this layer's h (the next step's y and ctx) for the next layer or step

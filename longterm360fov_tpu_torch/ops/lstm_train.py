@@ -272,8 +272,7 @@ class FwdGeom(NamedTuple):
 
 
 FWD_MODES = ("tf", "static", "step")  # teacher-forced; the decoder with a static or a per-step context
-_FWD_ROWS = (64, 32)  # rows a block: whole 32-row warp tiles
-_FWD_BLOCKS = 128  # blocks a grid fills before a block takes 64 rows: one wave on the card's 132 SMs
+_FWD_ROWS = 32  # rows a block, one 32-row warp tile: B = 4096 makes one wave of 128 blocks on the card's 132 SMs
 _FWD_MAX_HIDDEN = 256  # the backward's widest, two unit blocks a warp
 _FWD_MAX_D = 8  # csrc/lstm_common.cuh SSB_MAX_D: coordinates a token of the decoder's feedback
 
@@ -292,11 +291,10 @@ def _fwd_smem(rp: int, d: int, ctx_dim: int, hidden: int, layers: int, c_smem: b
 
 def fwd_block(hidden: int, layers: int, d: int, batch: int, compute_dtype=torch.float32, *, ctx_dim: int = 0,
               mode: str = "tf") -> FwdGeom:
-    """The block of the training forward in ``mode`` (``FWD_MODES``): 64
-    rows where the grid still has ``_FWD_BLOCKS`` blocks, else 32 (B = 4096:
-    128 blocks of 32 rows, one wave); c in shared memory where it fits, else
-    in device memory; the warps that take the block's tiles in the fewest
-    rounds, at most 16. Raises a ValueError that names the shape for what
+    """The block of the training forward in ``mode`` (``FWD_MODES``):
+    ``_FWD_ROWS`` rows; c in shared memory where it fits, else in device
+    memory; the warps that take the block's tiles in the fewest rounds, at
+    most 16. Raises a ValueError that names the shape for what
     the kernel does not take: hidden not a multiple of 32 up to 256, more
     than 8 layers, the decoder's d outside 1..8 or a context not of whole
     16-byte pieces, or a block of 32 rows past shared memory."""
@@ -314,19 +312,16 @@ def fwd_block(hidden: int, layers: int, d: int, batch: int, compute_dtype=torch.
         raise ValueError(f"the decoders' training forward reads the context as 16-byte rows: ctx_dim % 4 == 0 (the "
                          f"teacher-forced mode takes none), got ctx_dim={ctx_dim}")
     f32 = compute_dtype != torch.bfloat16
-    rps = [rp for rp in _FWD_ROWS if rp == _FWD_ROWS[-1] or -(-batch // rp) >= _FWD_BLOCKS]
-    for rp in rps:
-        for c_smem in (True, False):
-            smem = _fwd_smem(rp, d, ctx_dim, hidden, layers, c_smem, mode, f32)
-            if smem <= _SMEM_LIMIT:
-                tiles = rp * hidden // (256 if f32 else 512)
-                rounds = -(-tiles // 16)
-                return FwdGeom(rp, -(-tiles // rounds), c_smem, smem)
-    least = _fwd_smem(32, d, ctx_dim, hidden, layers, False, mode, f32)
+    for c_smem in (True, False):
+        smem = _fwd_smem(_FWD_ROWS, d, ctx_dim, hidden, layers, c_smem, mode, f32)
+        if smem <= _SMEM_LIMIT:
+            tiles = _FWD_ROWS * hidden // (256 if f32 else 512)
+            rounds = -(-tiles // 16)
+            return FwdGeom(_FWD_ROWS, -(-tiles // rounds), c_smem, smem)
     raise ValueError(
-        f"d={d}, ctx_dim={ctx_dim}, hidden={hidden}, layers={layers}: the training forward's block of 32 rows keeps "
-        f"[x, ctx, h of every layer] and a staging row in {'f32' if f32 else 'bf16'}, {least} bytes of shared memory "
-        f"with c in device memory, more than {_SMEM_LIMIT}"
+        f"d={d}, ctx_dim={ctx_dim}, hidden={hidden}, layers={layers}: the training forward's block of {_FWD_ROWS} "
+        f"rows keeps [x, ctx, h of every layer] and a staging row in {'f32' if f32 else 'bf16'}, {smem} bytes of "
+        f"shared memory with c in device memory, more than {_SMEM_LIMIT}"
     )
 
 

@@ -14,7 +14,8 @@ Run from the root of a checkout: ``python3 scripts/torch_align_train_probe.py``.
 ``--checkout DIR`` imports the port (and its ``chip_smoke.py``) from another
 checkout instead, such as an unpacked older commit; ``--self-only`` then
 skips what that checkout may lack (the SASS report and the probe build);
-``--skip-checks`` skips 2.; ``--steps`` only times the train steps (5.). One
+``--skip-checks`` skips 2.; ``--widths`` only times the widths and depths
+(the end of 3.); ``--steps`` only times the train steps (5.). One
 process a checkout, so that a call can run parent, change, change, parent.
 Prints, on the card it finds (it fails without one):
 
@@ -45,8 +46,10 @@ Prints, on the card it finds (it fails without one):
    and at ``seq2seq-tf-30``'s), in both compute types; then the widths and
    depths the backwards take again (hidden 256, L = 2, and 8 layers of
    hidden 128 at B = 4096: row 5's forward and backward at T = 100, the
-   decoder's at T = 30 with a static context of 128), where the checkout's
-   choosers take them ("refused" where they do not);
+   decoder's at T = 30 with a static context of 128), and 3 and 4 layers of
+   hidden 128 (the backward's 32-row blocks with a W ring of 2 in f32 at 3
+   layers and in bf16 at 4), where the checkout's choosers take them
+   ("refused" where they do not);
 4. unless ``--self-only``: the time split of the probe builds
    (``-DSSB_PROBE`` and ``-DLSTM_PROBE``: thread 0 of every block adds its
    ``clock64`` deltas a part, ``SsbPart`` and ``LstmPart`` order) of the
@@ -184,7 +187,7 @@ def check_train_fwd(chip_smoke, dev, lstm_train, lstm_ss, lstm_align):
     too."""
     out = {}
     for batch, layers, d, t, h in ((4099, 1, 3, 30, 128), (300, 2, 3, 100, 128), (257, 2, 131, 30, 128),
-                                   (8200, 1, 3, 4, 128), (100, 2, 3, 8, 256), (65, 8, 3, 6, 128)):
+                                   (100, 2, 3, 8, 256), (65, 8, 3, 6, 128)):
         ps, (xs, h0, c0), up = chip_smoke.lstm_case(dev, batch, layers, seed=batch + d, t=t, d=d, h=h)
         for rd in (F32, BF):
             for cd in (F32, BF):
@@ -227,6 +230,7 @@ def main():
     ap.add_argument("--checkout", default=str(ROOT), help="the checkout whose port to import")
     ap.add_argument("--self-only", action="store_true", help="skip the SASS report and the probe build")
     ap.add_argument("--skip-checks", action="store_true", help="skip the checks against the plain versions")
+    ap.add_argument("--widths", action="store_true", help="only time the widths and depths")
     ap.add_argument("--steps", action="store_true", help="only time the train steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -242,6 +246,8 @@ def main():
     dev = torch.device("cuda:0")
     if args.steps:
         return time_steps(chip_smoke, dev, smi)
+    if args.widths:
+        return time_widths(chip_smoke, dev, smi, lstm_train, lstm_ss)
     with ThreadPoolExecutor(max_workers=8) as pool:  # one nvcc each, started together
         jobs = {name: pool.submit(_build.build, name) for name in ("lstm_ss", "lstm_align", "fused_serve",
                                                                     "lstm_train")}
@@ -325,47 +331,7 @@ def main():
           f"backward data beside the 10 s encoder's; {smi}): {json.dumps(ms)}", flush=True)
     del tf_calls
     torch.cuda.empty_cache()
-    wide, bounds = {}, {}
-    for h, layers in ((256, 2), (128, 8)):
-        ps5, (xs, h0, c0), up = chip_smoke.lstm_case(dev, B, layers, seed=h + layers, t=100, h=h)
-        ps6, a6 = chip_smoke.ss_case(dev, B, layers, 128, "bernoulli", seed=h + layers, h=h)
-        for cd in (F32, BF):
-            n = f"H={h} L={layers} {str(cd)[6:]}"
-            try:
-                res5 = lstm_train.lstm_fwd(ps5, xs, h0, c0, F32, cd)
-                bw5 = lstm_train.lstm_bwd(ps5, c0, res5, *up, compute_dtype=cd)
-                ys6, res6 = lstm_ss.ss_fwd(*chip_smoke.ss_fwd_args(ps6, a6), BF, cd)
-                b6 = (ps6, a6["proj_w"], a6["c0"], a6["coins"], res6, a6["dys"], 128)
-                bw6 = lstm_ss.ss_bwd(*b6, cd)
-            except ValueError as e:
-                print(f"{n}: refused ({e})", flush=True)
-                continue
-            wide[f"lstm_fwd T=100 {n}"] = lambda ps5=ps5, xs=xs, h0=h0, c0=c0, cd=cd: lstm_train.lstm_fwd(
-                ps5, xs, h0, c0, F32, cd)
-            wide[f"lstm_bwd T=100 {n}"] = lambda ps5=ps5, c0=c0, r=res5, up=up, cd=cd: lstm_train.lstm_bwd(
-                ps5, c0, r, *up, compute_dtype=cd)
-            wide[f"ss_fwd T=30 C=128 {n}"] = lambda ps6=ps6, a6=a6, cd=cd: lstm_ss.ss_fwd(
-                *chip_smoke.ss_fwd_args(ps6, a6), BF, cd)
-            wide[f"ss_bwd T=30 C=128 {n}"] = lambda b6=b6, cd=cd: lstm_ss.ss_bwd(*b6, cd)
-            # the bounds, as chip_smoke.py's: the products at three-pass TF32 or bf16, the bytes once
-            peak = chip_smoke.TF32X3_FLOPS if cd == F32 else chip_smoke.BF16_FLOPS
-            w5, w6 = [t for p in ps5 for t in p], [t for p in ps6 for t in p]
-            flop5 = chip_smoke.stack_flop(B, 100, [3] + [h] * (layers - 1), h)
-            flop6 = chip_smoke.stack_flop(B, 30, [3 + 128] + [h] * (layers - 1), h)
-            r5, r6 = [*res5.hs, *res5.cs, *res5.gs], [*res6.hs, *res6.cs, *res6.gs]
-            bounds[f"lstm_fwd T=100 {n}"] = chip_smoke.bound(flop5, [xs, h0, c0, *w5], r5, peak)
-            bounds[f"lstm_bwd T=100 {n}"] = chip_smoke.bound(flop5, [c0, *up, *w5, *res5.cs, *res5.gs],
-                                                             [*bw5[0], *bw5[1:]], peak)
-            a6_in = [a6[k] for k in ("h0", "c0", "y0", "teacher", "coins", "ctx", "proj_w", "proj_b")]
-            bounds[f"ss_fwd T=30 C=128 {n}"] = chip_smoke.bound(flop6, a6_in + w6, [ys6, *r6], peak)
-            bounds[f"ss_bwd T=30 C=128 {n}"] = chip_smoke.bound(
-                flop6, [a6["dys"], a6["c0"], a6["coins"], a6["proj_w"], *w6, *res6.cs, *res6.gs],
-                [*bw6[0], *bw6[1:6], bw6[6]], peak)
-    if wide:
-        ms = chip_smoke.in_turns(wide, {k: 3 for k in wide})
-        print(f"the widths and depths taken again, alone at B={B} (ms a call, CUDA events, in turns; row 5 on f32 "
-              f"residuals, the decoder on bf16; {smi}): {json.dumps(ms)}; their bounds (ms, by): "
-              f"{json.dumps(bounds)}", flush=True)
+    time_widths(chip_smoke, dev, smi, lstm_train, lstm_ss)
     if args.self_only:
         return
 
@@ -418,6 +384,59 @@ def main():
             split = {p: round(v / total, 4) for p, v in zip(FWD_PARTS, fbuf) if v}
             print(f"{label}, {str(cd)[6:]} compute, probe build ({t_ms:.3f} ms a call; thread 0's clock64 a part, "
                   f"summed over the blocks): {json.dumps(split)}", flush=True)
+
+
+def time_widths(chip_smoke, dev, smi, lstm_train, lstm_ss):
+    """The end of 3.: the widths and depths the backwards take again, alone
+    at B = 4096, in turns a shape (one shape's tensors on the card at a
+    time), with their bounds."""
+    B = chip_smoke.TRAIN_B
+    ms, bounds = {}, {}
+    for h, layers in ((256, 2), (128, 8), (128, 3), (128, 4)):
+        wide = {}
+        ps5, (xs, h0, c0), up = chip_smoke.lstm_case(dev, B, layers, seed=h + layers, t=100, h=h)
+        ps6, a6 = chip_smoke.ss_case(dev, B, layers, 128, "bernoulli", seed=h + layers, h=h)
+        for cd in (F32, BF):
+            n = f"H={h} L={layers} {str(cd)[6:]}"
+            try:
+                res5 = lstm_train.lstm_fwd(ps5, xs, h0, c0, F32, cd)
+                bw5 = lstm_train.lstm_bwd(ps5, c0, res5, *up, compute_dtype=cd)
+                ys6, res6 = lstm_ss.ss_fwd(*chip_smoke.ss_fwd_args(ps6, a6), BF, cd)
+                b6 = (ps6, a6["proj_w"], a6["c0"], a6["coins"], res6, a6["dys"], 128)
+                bw6 = lstm_ss.ss_bwd(*b6, cd)
+            except ValueError as e:
+                print(f"{n}: refused ({e})", flush=True)
+                continue
+            wide[f"lstm_fwd T=100 {n}"] = lambda ps5=ps5, xs=xs, h0=h0, c0=c0, cd=cd: lstm_train.lstm_fwd(
+                ps5, xs, h0, c0, F32, cd)
+            wide[f"lstm_bwd T=100 {n}"] = lambda ps5=ps5, c0=c0, r=res5, up=up, cd=cd: lstm_train.lstm_bwd(
+                ps5, c0, r, *up, compute_dtype=cd)
+            wide[f"ss_fwd T=30 C=128 {n}"] = lambda ps6=ps6, a6=a6, cd=cd: lstm_ss.ss_fwd(
+                *chip_smoke.ss_fwd_args(ps6, a6), BF, cd)
+            wide[f"ss_bwd T=30 C=128 {n}"] = lambda b6=b6, cd=cd: lstm_ss.ss_bwd(*b6, cd)
+            # the bounds, as chip_smoke.py's: the products at three-pass TF32 or bf16, the bytes once
+            peak = chip_smoke.TF32X3_FLOPS if cd == F32 else chip_smoke.BF16_FLOPS
+            w5, w6 = [t for p in ps5 for t in p], [t for p in ps6 for t in p]
+            flop5 = chip_smoke.stack_flop(B, 100, [3] + [h] * (layers - 1), h)
+            flop6 = chip_smoke.stack_flop(B, 30, [3 + 128] + [h] * (layers - 1), h)
+            r5, r6 = [*res5.hs, *res5.cs, *res5.gs], [*res6.hs, *res6.cs, *res6.gs]
+            bounds[f"lstm_fwd T=100 {n}"] = chip_smoke.bound(flop5, [xs, h0, c0, *w5], r5, peak)
+            bounds[f"lstm_bwd T=100 {n}"] = chip_smoke.bound(flop5, [c0, *up, *w5, *res5.cs, *res5.gs],
+                                                             [*bw5[0], *bw5[1:]], peak)
+            a6_in = [a6[k] for k in ("h0", "c0", "y0", "teacher", "coins", "ctx", "proj_w", "proj_b")]
+            bounds[f"ss_fwd T=30 C=128 {n}"] = chip_smoke.bound(flop6, a6_in + w6, [ys6, *r6], peak)
+            bounds[f"ss_bwd T=30 C=128 {n}"] = chip_smoke.bound(
+                flop6, [a6["dys"], a6["c0"], a6["coins"], a6["proj_w"], *w6, *res6.cs, *res6.gs],
+                [*bw6[0], *bw6[1:6], bw6[6]], peak)
+        if wide:
+            ms.update(chip_smoke.in_turns(wide, {k: 3 for k in wide}))
+        wide.clear()  # the shape's tensors go before the next shape's come
+        res5 = bw5 = res6 = bw6 = None
+        torch.cuda.empty_cache()
+    if ms:
+        print(f"the widths and depths taken again, alone at B={B} (ms a call, CUDA events, in turns; row 5 on f32 "
+              f"residuals, the decoder on bf16; {smi}): {json.dumps(ms)}; their bounds (ms, by): "
+              f"{json.dumps(bounds)}", flush=True)
 
 
 def time_steps(chip_smoke, dev, smi):

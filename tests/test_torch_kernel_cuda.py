@@ -1252,7 +1252,7 @@ def test_lstm_bwd_refuses_what_its_block_does_not_take(h, layers, d, cd, match):
 # TF32 in f32, bf16 mma.sync in bf16. Their outputs within the "fwd" gate
 # (1e-5 absolute, or one bf16 step on a bf16 residual) of the plain version,
 # at the widths and depths the backward takes (hidden up to 256, 8 layers),
-# in 64-row blocks (a grid of at least 128 of them) and with c in device
+# at the training batch with a partial block past it and with c in device
 # memory; repeats bit-equal. The backward, fed the kernel's residuals, at
 # the same shapes within the "rec" gate.
 
@@ -1260,7 +1260,7 @@ def test_lstm_bwd_refuses_what_its_block_does_not_take(h, layers, d, cd, match):
 @pytest.mark.parametrize("cd", COMPUTE)
 @pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hidden,layers,d,batch,t", [
-    (128, 1, 3, 8200, 4),   # 64-row blocks: the grid keeps 128 of them
+    (128, 1, 3, 4100, 4),   # the training batch and a partial block past it
     (128, 8, 3, 65, 6),     # the deepest stack: f32 c in device memory
     (256, 2, 3, 100, 8),    # the widest hidden
     (160, 1, 131, 33, 5),   # a wide input in whole k-steps, d = 3 + C
@@ -1275,7 +1275,7 @@ def test_lstm_fwd_tensor_core_shapes(hidden, layers, d, batch, t, rd, cd):
     torch.cuda.synchronize()
     assert _counts([lstm_train.lstm_fwd]) == [(n + 2 * (cd != BF), m + 2 * (cd == BF)) for n, m in before]
     geo = lstm_train.fwd_block(hidden, layers, d, batch, cd)
-    assert geo.rp == (64 if batch >= 8192 else 32) and -(-batch // geo.rp) >= min(128, -(-batch // 32))
+    assert geo.rp == 32
     assert lstm_train._library().lstm_fwd_smem(geo.rp, d, hidden, layers, int(geo.c_smem), int(cd == BF)) == geo.smem
     refs = _plains(cd, lambda c: lstm_train._forward_reference(ps, xs, h0, c0, rd, c))
     assert all(x.dtype == rd for x in _fwd(res))
@@ -1301,7 +1301,7 @@ def _ss_wide_case(batch, layers, ctx_dim, hidden, seed, t, step, d=3):
 @pytest.mark.parametrize("cd", COMPUTE)
 @pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("step,hidden,layers,c,d,batch,t", [
-    (False, 128, 2, 128, 3, 8200, 3),  # row 6 in 64-row blocks
+    (False, 128, 2, 128, 3, 4100, 3),  # row 6 at the training batch and a partial block past it
     (True, 128, 2, 128, 3, 300, 20),   # row 7, the 10 s decoder cut in B and T
     (False, 256, 2, 128, 3, 70, 8),    # the widest hidden: two unit blocks a warp in the backward
     (True, 192, 1, 192, 3, 40, 6),

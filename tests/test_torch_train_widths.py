@@ -146,18 +146,18 @@ def test_ss_decode_grads_match_jax_at_the_widths_taken(ss_case):
 
 @pytest.mark.parametrize("cd", [torch.float32, BF])
 @pytest.mark.parametrize("mode,d,ctx_dim", [("tf", 3, 0), ("tf", 131, 0), ("static", 3, 128), ("step", 3, 128)])
-@pytest.mark.parametrize("batch,rp", [(4096, 32), (8192, 64), (16384, 64), (1, 32), (8127, 32)])
-def test_fwd_block_fills_the_card_at_the_training_batch(batch, rp, mode, d, ctx_dim, cd):
-    """64 rows a block where the grid keeps 128 blocks, else 32: at the
-    training batch B = 4096, 128 blocks of 32 rows, one wave on the card;
-    the warps take the block's 32-row tiles (32 x 8 units in f32, x 16 in
-    bf16) in the fewest rounds, at most 16."""
+@pytest.mark.parametrize("batch", [4096, 8192, 16384, 1, 8127])
+def test_fwd_block_fills_the_card_at_the_training_batch(batch, mode, d, ctx_dim, cd):
+    """32 rows a block at every batch: at the training batch B = 4096, 128
+    blocks, one wave on the card's 132 SMs; the warps take the block's
+    32-row tiles (32 x 8 units in f32, x 16 in bf16) in the fewest rounds,
+    at most 16."""
     geo = lstm_train.fwd_block(128, 2, d, batch, cd, ctx_dim=ctx_dim, mode=mode)
-    assert geo.rp == rp and geo.smem <= SMEM
-    assert -(-batch // geo.rp) >= min(128, -(-batch // 32))
-    tiles = rp * 128 // (256 if cd == torch.float32 else 512)
+    assert geo.rp == 32 and geo.smem <= SMEM
+    assert -(-batch // geo.rp) >= min(128, batch)
+    tiles = 32 * 128 // (256 if cd == torch.float32 else 512)
     assert geo.warps == min(16, tiles)
-    assert geo.smem == lstm_train._fwd_smem(rp, d, ctx_dim, 128, 2, geo.c_smem, mode, cd == torch.float32)
+    assert geo.smem == lstm_train._fwd_smem(32, d, ctx_dim, 128, 2, geo.c_smem, mode, cd == torch.float32)
 
 
 @pytest.mark.parametrize("cd", [torch.float32, BF])
