@@ -17,8 +17,9 @@ one line each or more:
    ``mma.sync``, three-pass TF32 in f32, bf16 in bf16), the bf16 tiers of
    the peer context, the encoder, the serve kernel and the cell
    (``lstm_mma.cuh``: ``mma.sync`` bf16), the f32 tiers of the peer context,
-   the encoder and the serve kernel (``lstm_mma.cuh``, three-pass TF32; each
-   block's shared memory as the library and the chooser count it), every
+   the encoder, the serve kernel and the cell (``lstm_mma.cuh``, three-pass
+   TF32; each block's shared memory, and the cell's block, as the library
+   and the chooser count it), every
    instance of the training backward ``ss_bwd_kernel`` (32- and 16-row
    blocks, one or two unit blocks a warp) and forward ``train_fwd_kernel``
    in their three modes (the decoder's static and per-step context, row 5's
@@ -45,7 +46,9 @@ one line each or more:
    of the reduction bit-equal; the static-context ``fused_serve``
    and the ``ss_decode`` kernels at video-fusion's C = 64; ``conv_resize`` at
    five shapes (the JAX suite's, a clip at the feature defaults, the fusion
-   maps mode, upsampling, odd sizes); ``fused_encode_tokens`` (B = 16384 at
+   maps mode, upsampling, odd sizes) and at a row wider than 48 KB, with
+   3 x 3 filters, then with K = 5, 7 and 1 (a ragged last column tile, a
+   wide row, whole-frame tiles), each repeat bit-equal; ``fused_encode_tokens`` (B = 16384 at
    T = 30, a ragged B, T = 13 and 64) and ``fused_ar_decode`` (30 + 30 steps,
    L = 2: no peers, K = 4 per-row peers with a row of no valid peer, which
    must equal the peerless rollout, and a row of one; ``peer_pool`` "mean";
@@ -63,8 +66,10 @@ one line each or more:
    stash against plain, every gradient against autograd through
    ``_encode``, the reduction equal to the block-order sum, two runs
    bit-equal (and the f32 encoder kernels at T = 1 and L = 8 too, the
-   serving kernel's repeat bit-equal); ``fused_lstm_cell`` (D_in = 3 and 128, B = 16384 and 16383)
-   against ``lstm_cell``; ``fused_decode`` (L = 1 and 2, C = 0 and 128, 30
+   serving kernel's repeat bit-equal); ``fused_lstm_cell`` (D_in = 3 and 128, B = 16384 and 16383;
+   in f32, three-pass TF32, also hidden 40, 100, 272 and 1024 at ragged
+   batches with x and h at odd offsets, W resident and streamed, each repeat
+   bit-equal) against ``lstm_cell``; ``fused_decode`` (L = 1 and 2, C = 0 and 128, 30
    steps, B = 16383) against its plain version; the f32 serve kernel
    (C = 0, 128 and 12, the last padded to a k8 step), ``fused_decode`` and
    the lockstep tier (100 + 100 steps) in the choosers' 64-row blocks and
@@ -108,8 +113,11 @@ one line each or more:
    normalize → ``seq2seq.decode_fused`` → denormalize at B = 16384 and
    262,144 (30 cell launches and one ``fused_decode``); every answer against
    the ``cell="xla"`` plain path and the numpy oracle, ``decode_fused``
-   against ``serve_fused``; both paths timed, and each kernel alone against
-   plain (the cell also against ``torch.lstm_cell``);
+   against ``serve_fused``; both paths timed at 16384 and 262,144, and
+   each kernel alone against plain; the f32 cell (three-pass TF32) at
+   B = 16384 (D_in = 3 and 128) and 262,144 also against ``torch.lstm_cell``
+   and beside its FMA design's time (``BEFORE``), with its bound on the
+   tensor cores and on the FMA units and its device and host time a call;
 5. the ``seq2seq-tf-30`` training main path: ``train.train_loop`` at
    B = 4096 through the ``lstm_seq_states`` kernels, with evaluation,
    checkpoints and a resume that equals the uninterrupted run, one step
@@ -180,7 +188,10 @@ one line each or more:
    reported and not gated (ill-conditioned there); frames/s of
    ``extract_clip_features`` with and without the host→card copy, and at
    960 x 1920 on 240 frames made on the card; ``conv_resize`` alone against
-   plain and ``F.interpolate`` + ``F.conv2d``;
+   plain and ``F.interpolate`` + ``F.conv2d``, its device time
+   (``torch.profiler``) beside its design's before (``BEFORE``), the bound
+   and the sector floor (the 32-byte sectors of the source pixels its taps
+   read, the output once; and in 64-byte pieces);
 11. the ``video-fusion`` serving main path: the batcher with ``features`` in
    every request (a request without them raises) in front of the
    static-context ``fused_serve`` at C = 64, every answer against the port's
@@ -397,7 +408,12 @@ HBM_BYTES = 3.35e12  # H100 SXM memory rate (data sheet)
 # (row 7) on the FMA units, both compute tiers; the f32 encoder (row 4: 65,536
 # and 262,144 rows) and row 5's backward (both compute tiers, seq2seq-tf-30's
 # shape and the 10 s encoder's, the latter from PERF.md §5's step profile) on
-# the FMA units
+# the FMA units; the f32 cell (row 2, B = 16384, D_in = 3 and 128, and
+# 262,144) on the FMA units, timed in turns with the tensor-core design
+# (scripts/torch_cell_bf16_probe.py --f32 --checkout); conv_resize (row 8)
+# before its tiled design, the mean device time a launch (launch_device_ms,
+# scripts/torch_conv_probe.py --time-only --checkout, in turns) at 64 frames
+# of 960 x 1920 and at a 1200-frame clip
 BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_decode_dw": 3.920,
           "ss_decode_dw_bf16": 3.777, "aligned_dec_dw": 20.739, "aligned_dec_dw_bf16": 20.681,
           "aligned_peer_dw": 20.808, "aligned_peer_dw_bf16": 21.833, "fused_encode_tokens_bf16": 19.151,
@@ -418,7 +434,9 @@ BEFORE = {"lstm_seq_states_dw": 0.888, "lstm_seq_states_dw_bf16": 0.916, "ss_dec
           "lstm_seq_states_bwd": 1.327, "lstm_seq_states_bwd_bf16": 1.368, "lstm_seq_states_bwd 10s": 13.9,
           "lstm_seq_states_bwd_bf16 10s": 14.2, "lstm_seq_states_fwd": 0.774, "lstm_seq_states_fwd_bf16": 0.827,
           "lstm_seq_states_fwd 10s": 9.5, "lstm_seq_states_fwd_bf16 10s": 7.5, "ss_decode_fwd": 3.636,
-          "ss_decode_fwd_bf16": 3.470, "aligned_dec_fwd": 8.648, "aligned_dec_fwd_bf16": 10.696}
+          "ss_decode_fwd_bf16": 3.470, "aligned_dec_fwd": 8.648, "aligned_dec_fwd_bf16": 10.696,
+          "fused_lstm_cell": 0.1187, "fused_lstm_cell D_in=128": 0.2032, "fused_lstm_cell B=262144": 1.934,
+          "conv_resize device": 0.0159, "conv_resize device clip": 0.1643}
 DW_NAMES = [n for n in BEFORE if n.rsplit("_bf16", 1)[0].endswith("_dw")]
 # the cell kernel against lstm_cell: one step, exact f32 FMAs in another order
 # (tests/test_fused_lstm.py's bound for the TPU cell)
@@ -874,24 +892,31 @@ def check_encode(dev, batch, layers, seed, t=30, cd=F32, repeat=False):
                          f"B={batch}, L={layers}", "encode", cd)
 
 
-def check_cell(dev, batch, d_in, seed, cd=F32):
+def check_cell(dev, batch, d_in, seed, cd=F32, hidden=128, offset=False):
     """fused_lstm_cell against lstm_cell on the same inputs, every tensor
     in ``cd``: in bf16 (a --bf16 model's cell) against ``lstm_cell`` on the
     bf16 tensors, its plain version, and on their f32 widening
-    (:func:`check_outputs`, kind "cell", over h and c)."""
+    (:func:`check_outputs`, kind "cell", over h and c); ``offset``: x and h
+    one element past an aligned address. A repeat is bit-equal."""
     rng = np.random.default_rng(seed)
-    (p,) = stack(rng, dev, d_in, 1)
+    (p,) = stack(rng, dev, d_in, 1, h=hidden)
     p = LSTMParams(p.w.to(cd), p.b.to(cd))
-    x, h, c = (randn(rng, dev, shape, scale).to(cd)
-               for shape, scale in (((batch, d_in), 1.0), ((batch, 128), 0.5), ((batch, 128), 0.5)))
+    k = int(offset)
+    x = randn(rng, dev, (batch * d_in + k,)).to(cd)[k:].view(batch, d_in)
+    h = randn(rng, dev, (batch * hidden + k,), 0.5).to(cd)[k:].view(batch, hidden)
+    c = randn(rng, dev, (batch, hidden), 0.5).to(cd)
     got = fused_lstm.fused_lstm_cell(p, x, (h, c))
+    again = fused_lstm.fused_lstm_cell(p, x, (h, c))
     torch.cuda.synchronize()
     if any(g.dtype != cd for g in got):
         raise AssertionError(f"fused_lstm_cell wrote {[g.dtype for g in got]} on {cd} inputs")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"fused_lstm_cell's repeat differs (B={batch}, D_in={d_in}, H={hidden})")
 
     def plain(c_):
         return list(lstm_cell(LSTMParams(*(t.to(c_) for t in p)), x.to(c_), (h.to(c_), c.to(c_))))
-    return check_outputs("fused_lstm_cell", list(got), plains(cd, plain), f"B={batch}, D_in={d_in}", "cell", cd)
+    return check_outputs("fused_lstm_cell", list(got), plains(cd, plain), f"B={batch}, D_in={d_in}, H={hidden}",
+                         "cell", cd)
 
 
 def check_decode(dev, batch, layers, ctx_dim, seed, t=30, repeat=False):
@@ -1227,17 +1252,21 @@ def check_aligned_kernels(dev, batch, layers, k, rd, coins, seed, cd=F32):
     return errs
 
 
-def check_conv_resize(dev, shape, out_hw, c, seed):
+def check_conv_resize(dev, shape, out_hw, c, seed, k=3):
     """conv_resize against conv_resize_reference on the same inputs (frames
-    N(0, 1), filters N(0, 1/9), bias N(0, 0.01)) → max abs error."""
+    N(0, 1), k x k filters N(0, 1/k²), bias N(0, 0.01)) → max abs error."""
     rng = np.random.default_rng(seed)
-    frames, kernels, bias = randn(rng, dev, shape), randn(rng, dev, (c, 3, 3), 1 / 3), randn(rng, dev, (c,), 0.1)
+    frames, kernels, bias = randn(rng, dev, shape), randn(rng, dev, (c, k, k), 1 / k), randn(rng, dev, (c,), 0.1)
     out = conv_resize.fused_conv_resize(frames, out_hw, kernels, bias)
+    again = conv_resize.fused_conv_resize(frames, out_hw, kernels, bias)
     torch.cuda.synchronize()
     ref = conv_resize.conv_resize_reference(frames, out_hw, kernels, bias)
     err = (out - ref).abs().max().item()
     if out.shape != ref.shape or not torch.isfinite(out).all() or not err <= CONV_REL_TOL * ref.abs().max().item():
-        raise AssertionError(f"conv_resize disagrees with its plain version ({shape} → {out_hw}, C={c}): {err:.3e}")
+        raise AssertionError(f"conv_resize disagrees with its plain version ({shape} → {out_hw}, C={c}, K={k}): "
+                             f"{err:.3e}")
+    if not torch.equal(out, again):
+        raise AssertionError(f"conv_resize's repeat differs ({shape} → {out_hw}, C={c}, K={k})")
     note_err("conv_resize", err)
     return err
 
@@ -1314,12 +1343,20 @@ def check_all_kernels(dev):
           f"plain versions (absolute on forwards, of max|plain| per output on gradients) and the least floor "
           f"ratio: {json.dumps(errs)} (limits: bf16 {json.dumps(BF16C_TIGHT)}, f32 {json.dumps(BF16C_CONTRACT)}, "
           f"one bf16 step more on a forward value stored in bf16; floor {BF16C_FLOOR})", flush=True)
-    errs = {f"{s[0]}x{s[1]}x{s[2]}->{hw[0]}x{hw[1]} C={c}": check_conv_resize(dev, s, hw, c, seed=i)
-            for i, (s, hw, c) in enumerate((((3, 48, 96), (16, 32), 4), ((64, 960, 1920), (32, 64), 8),
-                                            ((4099, 64, 128), (16, 32), 4), ((5, 12, 20), (16, 32), 4),
-                                            ((7, 961, 1917), (32, 64), 8)))}
-    print(f"conv_resize vs plain, K=3: max_abs_err {json.dumps(errs)} (tolerance {CONV_REL_TOL} of max|plain|)",
-          flush=True)
+    # K = 3 (the main path's filters: the register-window body) at the five
+    # shapes and a row past the old design's 48 KB cap; then the body for
+    # any odd K: K = 5 and 7 at the 64-frame shape, a ragged last column
+    # tile (530 = 2 x 256 + 18 columns), a 20,000-column row and K = 1 in
+    # whole-frame tiles
+    errs = {f"{s[0]}x{s[1]}x{s[2]}->{hw[0]}x{hw[1]} C={c} K={k}": check_conv_resize(dev, s, hw, c, seed=i, k=k)
+            for i, (s, hw, c, k) in enumerate((
+                ((3, 48, 96), (16, 32), 4, 3), ((64, 960, 1920), (32, 64), 8, 3), ((4099, 64, 128), (16, 32), 4, 3),
+                ((5, 12, 20), (16, 32), 4, 3), ((7, 961, 1917), (32, 64), 8, 3), ((2, 60, 30000), (12, 20000), 4, 3),
+                ((64, 960, 1920), (32, 64), 8, 5), ((64, 960, 1920), (32, 64), 8, 7), ((3, 50, 700), (20, 530), 3, 5),
+                ((2, 60, 30000), (12, 20000), 4, 7), ((300, 40, 80), (24, 40), 4, 1)))}
+    print(f"conv_resize vs plain (tiles of conv_tile; K=3 at the five shapes and 20,000-column rows past the old "
+          f"48 KB cap, then odd K=5, 7 and 1; repeats bit-equal): max_abs_err {json.dumps(errs)} (tolerance "
+          f"{CONV_REL_TOL} of max|plain|)", flush=True)
     errs = {f"B={b} T={t} L={l}": check_tf_encode(dev, b, t, l, seed=i, repeat=i == 0)
             for i, (b, t, l) in enumerate(((16384, 30, 2), (4099, 30, 2), (4099, 13, 2), (1001, 64, 1), (129, 1, 2),
                                            (51, 30, 8)))}
@@ -1363,7 +1400,13 @@ def check_all_kernels(dev):
           f"floor (least mean-gap ratio to the bf16 plain version's, from f32; limit {BF16C_FLOOR}) and a repeat "
           f"bit-equal; the shared tier over G=3 groups with δv: {json.dumps(errs)}", flush=True)
     errs = {f"B={b} D_in={d}": check_cell(dev, b, d, seed=b + d) for b in (16384, 16383) for d in (3, 128)}
-    print(f"fused_lstm_cell vs lstm_cell, hidden 128: max_abs_err {json.dumps(errs)} (tolerance {CELL_TOL})",
+    for b, d, hid, off in ((4099, 3, 40, True), (16383, 128, 100, False), (1000, 5, 272, True), (513, 3, 1024, False),
+                           (77, 1024, 8, True)):
+        geo = fused_lstm.cell_block(d, hid, False)
+        errs[f"B={b} D_in={d} H={hid}{' offset' if off else ''} {geo.rows}x{geo.units} "
+             f"{'W resident' if geo.w_res else 'W streamed'}"] = check_cell(dev, b, d, b + hid, hidden=hid, offset=off)
+    print(f"fused_lstm_cell vs lstm_cell (three-pass TF32, lstm_mma::cell_step<Tf32Mma>; repeats bit-equal), hidden "
+          f"128 and the widths the FMA design refused: max_abs_err {json.dumps(errs)} (tolerance {CELL_TOL})",
           flush=True)
     errs = {f"B=16383 L={l} C={c}": check_decode(dev, 16383, l, c, seed=l + c)
             for l in (1, 2) for c in (0, 128)}
@@ -1678,6 +1721,7 @@ def time_cell_paths(dev, params, smi):
               f"traj/s {json.dumps({k: batch * 1e3 / v for k, v in ms.items()})}", flush=True)
     for d_in, keep in ((3, True), (128, False)):
         time_cell_kernel(dev, smi, d_in, keep)
+    time_cell_kernel(dev, smi, 3, False, batch=262144)
     batch, t_out = 262144, 30
     dec = stack(rng, dev, 3, 1)
     pw, pb = randn(rng, dev, (128, 3), 0.1), randn(rng, dev, (3,), 0.1)
@@ -1708,8 +1752,11 @@ def time_cell_kernel(dev, smi, d_in, keep, cd=F32, batch=16384):
     the f32 kernel on their widening) and torch.lstm_cell (W split into w_ih
     and w_hh: the library yardstick, which the port never calls; in bf16
     cuBLAS rounds the gates to bf16 before the cell update, another
-    function), in turns at the main path's shape; ``keep``: its numbers go
-    to the kernels line."""
+    function), in turns at the main path's shape; then beside its FMA
+    design's time (BEFORE) with its bound (f32: the products in three-pass
+    TF32, beside the FMA units' bound), its device time and the library's
+    (torch.profiler) and the host's time a call; ``keep``: its numbers go to
+    the kernels line."""
     rng = np.random.default_rng(12 + d_in)
     (p,) = stack(rng, dev, d_in, 1)
     x, h, c = randn(rng, dev, (batch, d_in)), randn(rng, dev, (batch, 128), 0.5), randn(rng, dev, (batch, 128), 0.5)
@@ -1728,32 +1775,35 @@ def time_cell_kernel(dev, smi, d_in, keep, cd=F32, batch=16384):
     if cd == BF:
         p32, x32, h32, c32 = LSTMParams(p.w.float(), p.b.float()), x.float(), h.float(), c.float()
         fns["f32_kernel"] = lambda: fused_lstm.fused_lstm_cell(p32, x32, (h32, c32))
-    ms = in_turns(fns, {"plain": 20, "kernel": 20, "library": 20, "f32_kernel": 20})
+    ms = in_turns(fns, dict.fromkeys(fns, 20 if batch <= 16384 else 3))
     flop = stack_flop(batch, 1, [d_in], 128)
     reads, writes = [x, h, c, p.w, p.b], list(got)
-    peak = F32_FLOPS if cd == F32 else BF16_FLOPS
-    b_ms, b_by = bound(flop, reads, writes, peak)
+    work = {TF32X3_FLOPS: flop} if cd == F32 else {BF16_FLOPS: flop}
+    b_ms, b_by = bound(work, reads, writes)
     name = "fused_lstm_cell" + ("_bf16" if cd == BF else "")
     if keep:
-        record(name, ms, flop, reads, writes, peak)
+        record(name, ms, work, reads, writes)
     print(f"{name} alone (B={batch}, D_in={d_in}, H=128; ms, CUDA events, {smi}): {json.dumps(ms)}; "
           f"bound {b_ms:.4f} ms by {b_by}; vs plain {json.dumps(err)}, vs torch.lstm_cell {lib_err:.3e}", flush=True)
-    if cd == BF:  # row 2b on the tensor cores: beside its FMA design, its device and host time a call
-        host = {}
-        for w in ("kernel", "library"):
+    # on the tensor cores: beside its FMA design, its device and host time a call
+    host = {}
+    for w in ("kernel", "library"):
+        fns[w]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
             fns[w]()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(100):
-                fns[w]()
-            host[w] = (time.perf_counter() - t0) / 100 * 1e3
-            torch.cuda.synchronize()
-        kernel_ms, records = launch_device_ms(fns["kernel"], "lstm_cell_kernel", 20)
-        report_redesign(name, smi, {"ms": ms["kernel"], "library_ms": ms["library"], "bound_ms": b_ms,
-                                    "bound_by": b_by}, before=name if d_in == 3 else f"{name} D_in={d_in}",
-                        device={"kernel": kernel_ms, "library": device_ms(fns["library"], 20)},
-                        extra=f" (the kernel: the mean of {records} of 20 launches' records); host time a call "
-                              f"(ms, 100 calls enqueued): {json.dumps(host)}")
+        host[w] = (time.perf_counter() - t0) / 100 * 1e3
+        torch.cuda.synchronize()
+    kernel_ms, records = launch_device_ms(fns["kernel"], "lstm_cell_kernel", 20)
+    before = f"{name} B={batch}" if batch != 16384 else name if d_in == 3 else f"{name} D_in={d_in}"
+    report_redesign(name, smi, {"ms": ms["kernel"], "library_ms": ms["library"], "bound_ms": b_ms,
+                                "bound_by": b_by}, before=before,
+                    fma_bound=bound(flop, reads, writes)[0] if cd == F32 else None,
+                    device={"kernel": kernel_ms, "library": device_ms(fns["library"], 20)},
+                    extra=f" (the kernel: the mean of {records} of 20 launches' records); B={batch}, D_in={d_in}; "
+                          f"block {tuple(fused_lstm.cell_block(d_in, 128, cd == BF))}; host time a call (ms, 100 "
+                          f"calls enqueued): {json.dumps(host)}")
 
 
 # --------------------------------------------------------------- training paths
@@ -2495,9 +2545,10 @@ def report_peer_bwd(builds):
 def report_lstm_mma(builds):
     """The LSTM kernels on the tensor cores (lstm_mma.cuh): the bf16 peer
     context, encoder and serve kernel (rows 1b, 4b; encoder and server on
-    bf16 mma.sync), the bf16 cell (row 2b, cell_step), and the f32 peer
-    context, encoder and serve kernel (rows 1, 3 and 4; encoder and server
-    on three-pass TF32): their registers, spills and shared memory (ptxas; the dynamic
+    bf16 mma.sync), the cell in both tiers (rows 2 and 2b, cell_step; f32 on
+    three-pass TF32), and the f32 peer context, encoder and serve kernel
+    (rows 1, 3 and 4; encoder and server on three-pass TF32): their
+    registers, spills and shared memory (ptxas; the dynamic
     shared memory of the serving shapes' blocks, from ops.fused_lstm's
     choosers) and the count of HMMA instructions in their SASS; fails if one
     has none: their products run on mma.sync."""
@@ -2507,7 +2558,7 @@ def report_lstm_mma(builds):
         if "Function :" in ln:
             bf16 = "nv_bfloat16" in ln
             fn = next((k for k in ("peer_context_kernel", "fused_encode_kernel", "lstm_cell_kernel",
-                                   "fused_serve_kernel") if k in ln and (bf16 or k != "lstm_cell_kernel")), None)
+                                   "fused_serve_kernel") if k in ln), None)
             if fn == "fused_serve_kernel":
                 fn += "<true>" if "ILb1E" in ln else "<false>"
             if fn:
@@ -2525,10 +2576,17 @@ def report_lstm_mma(builds):
               f"{json.dumps(ptxas_resources('fused_serve', (name.split('<')[0], tier)))}, {geo.smem} bytes of dynamic "
               f"shared memory and {geo.warps} warps a block of {geo.rp} rows at the serving shape", flush=True)
     lib = fused_lstm.bind(ctypes.CDLL(str(builds["fused_serve"].path)))
-    print(f"lstm_cell_kernel<bf16>: {hmma.get('lstm_cell_kernel<bf16>', 0)} HMMA instructions in its SASS; "
-          f"{json.dumps(ptxas_resources('fused_serve', ('lstm_cell_kernel', 'nv_bfloat16')))}, "
-          f"{json.dumps({d: lib.lstm_cell_smem_bytes(d, 128) for d in (3, 128)})} bytes of dynamic shared memory at "
-          f"D_in = 3 and 128, 16 warps a block of {fused_lstm.cell_tc_rows(3, 128)} rows at H = 128", flush=True)
+    for tier, sym in (("bf16", "nv_bfloat16"), ("f32", "IfE")):
+        blocks = {f"D_in={d}": fused_lstm.cell_block(d, 128, tier == "bf16") for d in (3, 128)}
+        print(f"lstm_cell_kernel<{tier}>: {hmma.get(f'lstm_cell_kernel<{tier}>', 0)} HMMA instructions in its SASS; "
+              f"{json.dumps(ptxas_resources('fused_serve', ('lstm_cell_kernel', sym)))}; blocks at H = 128 (rows, "
+              f"units, warps, W resident, bytes of dynamic shared memory): {json.dumps(blocks)}", flush=True)
+    for d, h in ((3, 1), (3, 40), (3, 128), (128, 128), (1024, 128), (5, 272), (3, 1024)):
+        for bf16 in (0, 1):  # the library's accounting of each cell block is the chooser's
+            got = (ctypes.c_longlong * 5)()
+            lib.lstm_cell_block(d, h, bf16, got)
+            if tuple(got) != tuple(int(v) for v in fused_lstm.cell_block(d, h, bool(bf16))):
+                raise AssertionError(f"the cell's block at D_in={d}, H={h}: the library and the chooser disagree")
     shapes = {"seq2seq-tf-30": (128, 1, 3, 0, False), "stacked-ss-crossuser": (128, 2, 3, 128, False),
               "stacked-ss-crossuser-10s": (128, 2, 3, 128, True), "video-fusion": (128, 2, 3, 64, False)}
     for tier, choose, smem_of in (("bf16", fused_lstm.serve_tc_rows, lib.fused_serve_smem_bytes),
@@ -2557,7 +2615,7 @@ def report_lstm_mma(builds):
             if lib.fused_encode_smem_bytes(g.rp, 3, hidden, layers, int(g.w_res), int(g.c_smem), bf16) != g.smem:
                 raise AssertionError(f"the encoder's block at H={hidden}, L={layers}: the library and the chooser "
                                      f"disagree on its shared memory")
-    if len(hmma) != 9 or not all(hmma.values()):
+    if len(hmma) != 10 or not all(hmma.values()):
         raise AssertionError(f"an LSTM kernel on the tensor cores has no HMMA instruction, its products off them: "
                              f"{hmma}")
 
@@ -3158,6 +3216,21 @@ def conv_resize_work(shape, out_hw, c, k=3):
     return b * h * w * (9 + c * (2 * k * k + 2)), nbytes
 
 
+def conv_sector_floor(shape, out_hw, c, sector, k=3):
+    """The least bytes the card's memory moves for conv_resize at this shape
+    → (bytes, ms at HBM_BYTES): every ``sector``-byte piece of a frame that
+    holds a source pixel some tap reads (both taps of every output row and
+    column, as the kernel reads them), the output and the filters once. A
+    reading beside the bound, which counts each input byte once."""
+    b, src_h, src_w = shape
+    h, w = out_hw
+    rows = np.unique(conv_resize.resize_taps(h, src_h)[0])
+    cols = np.unique(conv_resize.resize_taps(w, src_w)[0])
+    pieces = np.unique((rows[:, None] * src_w + cols[None, :]) * 4 // sector).size
+    nbytes = sector * b * pieces + 4 * (b * c * h * w + c * (k * k + 1))
+    return nbytes, nbytes / HBM_BYTES * 1e3
+
+
 def time_conv_resize(dev, shape, out_hw, c, smi, keep):
     """conv_resize alone at a main-path shape, checked first, against its
     plain version and the library's F.interpolate (bilinear,
@@ -3196,6 +3269,16 @@ def time_conv_resize(dev, shape, out_hw, c, smi, keep):
     for name, fn in (("kernel", lambda: conv_resize.fused_conv_resize(frames, out_hw, kernels, bias)),
                      ("library", library)):
         profile_device(f"conv_resize {name} at {shape[0]} x {shape[1]}x{shape[2]}", fn, 20, smi)
+    kernel_ms, records = launch_device_ms(lambda: conv_resize.fused_conv_resize(frames, out_hw, kernels, bias),
+                                          "conv_resize_kernel", 20)
+    floors = {n: conv_sector_floor(shape, out_hw, c, n) for n in (32, 64)}
+    prev = BEFORE["conv_resize device" + ("" if shape[0] == 64 else " clip")]
+    print(f"conv_resize: device time {kernel_ms:.5f} ms a launch (the mean of {records} of 20 profiler records; "
+          f"before this design {prev} ms, PERF.md) at {shape[0]} x {shape[1]}x{shape[2]} -> {out_hw[0]}x{out_hw[1]}, "
+          f"tiles {tuple(conv_resize.conv_tile(shape[0], *out_hw, c, 3))}; bound {bound_ms:.5f} ms by {bound_by} "
+          f"({bound_ms / kernel_ms:.1%} of the device time); sector floor {floors[32][1]:.5f} ms ({floors[32][0] / 1e6:.2f} "
+          f"MB in 32-byte sectors, {floors[32][1] / kernel_ms:.1%}), in 64-byte pieces {floors[64][1]:.5f} ms "
+          f"({floors[64][0] / 1e6:.2f} MB, {floors[64][1] / kernel_ms:.1%}) ({smi})", flush=True)
 
 
 def blocky_report(dev, params_cpu):

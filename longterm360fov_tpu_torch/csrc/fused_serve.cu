@@ -27,15 +27,14 @@
 //   longterm360fov_tpu/ops/fused_lstm.py::fused_lstm_cell / _cell_kernel:
 // one layer-step of B rows, x, h, c, W and b stored in ST (f32, or bf16 on a
 // bf16 model, whose h and c it writes in bf16 too) (the cell="pallas" path: 60 launches a
-// seq2seq-tf-30 request). One step has no recurrence to keep on chip, so it
-// is bound by its products, (Din + H) x 4H MACs a row, with x, h, c in and
-// h, c out through device memory (40 bytes a row-unit at Din = H = 128,
-// against 256 FLOP: 4.3 GFLOP and 42 MB at B = 16384, 64 µs at the FMA peak
-// against 13 µs of bytes). W (Din + H, 4H) is 512 KB at Din = 128, more
-// than a block's shared memory: it streams from L2 in 16-byte loads, as in
-// every layer-step here. Its bf16 instance runs on the tensor cores
-// (lstm_mma.cuh's cell_step: mma.sync, W read as stored through a ring of
-// k16 steps), where its bytes, 17-21 MB at B = 16384, bound it.
+// seq2seq-tf-30 request). One step has no recurrence to keep on chip, so a
+// block holds a tile of rows and of units, not every unit: both tiers run
+// lstm_mma.cuh's cell_step on a grid of row tiles and unit blocks, W read
+// as stored and kept in shared memory over many row tiles where it fits
+// (else streamed beside z), z = [x | h] streamed through a cp.async ring,
+// the f32 tier's products in three-pass TF32 and the bf16 tier's on bf16
+// mma.sync; it takes every hidden and D_in (lstm_mma.cuh says what bounds
+// it and what its design does about that).
 // Inputs are read and outputs written in the caller's batch-major layout; a
 // ragged last block is masked.
 //
@@ -63,18 +62,6 @@
 // <float> is the f32 peer context's body without the context: 64-row blocks
 // of 16 warps (ops/fused_lstm.py encode_tf32_rows), W packed once a call and
 // streamed from L2, the unrounded top-layer h written from z at the end.
-// lstm_cell_kernel<float> stays on the FMA units (below):
-//   * Each thread owns TR = 8 rows x TJ = 4 hidden units and computes all four
-//     gates of them: 128 accumulators in registers. Per k it loads one float4
-//     of W per gate (16-byte coalesced loads; each W element is reused for 8
-//     rows, and across the block's warps through L1) and two float4 of the
-//     packed input (a broadcast from shared memory), then issues 128 FMAs.
-//   * A thread owns the same (row, unit) pairs in every step, so the gate
-//     nonlinearities and the cell update need no exchange: c of every layer
-//     sits in shared memory that only its owner thread touches.
-//   * h of every layer sits in shared memory, k-major (H, R), so the product
-//     reads it as [x, h] without a concat; it is overwritten in place after a
-//     barrier. Rows are independent, so blocks share nothing.
 // The lockstep-peer tier (preset stacked-ss-crossuser-10s): at decoder step
 // t, K peer LSTM cells (hidden C, from zero state) advance one step on the
 // peers' known future windows, and ctx_t = Σ_k w_k · h_k,t is step t's
@@ -123,15 +110,13 @@
 // lanes. The serve kernel's bf16 instances run the same pieces through both
 // phases (lstm_mma.cuh's server: the encoder, then the decoder with its
 // feedback y on the FMA units and, in the lockstep tier, ctx_t by cp.async
-// during the products), and the cell kernel's bf16 instance runs its one
-// step on mma.sync too (lstm_mma.cuh's cell_step).
+// during the products), and the cell kernel runs its one step on the tensor
+// cores in both tiers (lstm_mma.cuh's cell_step).
 
 #include "compute_type.cuh"
 #include "lstm_mma.cuh"
 
 #define MAX_LAYERS 8
-#define TR 8  // rows per thread
-#define TJ 4  // hidden units per thread: one float4 of each gate's columns
 
 template <typename CT>
 struct Weights {
@@ -142,113 +127,6 @@ struct Weights {
   const CT* proj_w;     // (H, D)
   const float* proj_b;  // (D,)
 };
-
-// acc[g][r][j] += sum_k z[k][r0 + r] * W[k][g * H + j0 + j] for k < K, in
-// exact f32. z is k-major (K, R) in shared memory; W rows are 4H long.
-__device__ __forceinline__ void accumulate(float (&acc)[4][TR][TJ],
-                                           const float* z, int K,
-                                           const float* __restrict__ W,
-                                           int H, int R, int r0, int j0) {
-  const int G = 4 * H;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(z + k * R + r0);
-    const float4 a1 = *reinterpret_cast<const float4*>(z + k * R + r0 + 4);
-    const float a[TR] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float* wk = W + (size_t)k * G + j0;
-    float w[4][TJ];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) ldw4(wk + g * H, w[g]);
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-      for (int r = 0; r < TR; ++r)
-#pragma unroll
-        for (int j = 0; j < TJ; ++j)
-          acc[g][r][j] = fmaf(a[r], w[g][j], acc[g][r][j]);
-  }
-}
-
-// One layer-step for the block's R rows:
-//   gates = [in, h] @ W + b;  c = f * c + i * g;  h = o * tanh(c).
-// in: (k_in, R) layer input; h: (H, R) this layer's hidden state, read and
-// then overwritten; c: this layer's cell state, owner-private layout
-// [TR * TJ][nthr]; every value f32.
-__device__ __forceinline__ void lstm_layer_step(
-    const float* in, int k_in, float* h, float* c,
-    const float* __restrict__ W, const float* __restrict__ bias, int H, int R,
-    int r0, int j0, int tid, int nthr) {
-  float acc[4][TR][TJ];
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-#pragma unroll
-    for (int r = 0; r < TR; ++r)
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) acc[g][r][j] = 0.0f;
-  accumulate(acc, in, k_in, W, H, R, r0, j0);
-  accumulate(acc, h, H, W + (size_t)k_in * 4 * H, H, R, r0, j0);
-  __syncthreads();  // every thread is done reading h (and in) of this step
-
-  float b[4][TJ];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) ldw4(bias + g * H + j0, b[g]);
-#pragma unroll
-  for (int r = 0; r < TR; ++r)
-#pragma unroll
-    for (int j = 0; j < TJ; ++j) {
-      const float i_g = sigmoid_f32(acc[0][r][j] + b[0][j]);
-      const float f_g = sigmoid_f32(acc[1][r][j] + b[1][j]);
-      const float g_g = tanhf(acc[2][r][j] + b[2][j]);
-      const float o_g = sigmoid_f32(acc[3][r][j] + b[3][j]);
-      const int idx = (r * TJ + j) * nthr + tid;
-      const float c_new = f_g * c[idx] + i_g * g_g;
-      c[idx] = c_new;
-      h[(j0 + j) * R + r0 + r] = o_g * tanhf(c_new);
-    }
-  __syncthreads();  // the new h is visible to the next layer and step
-}
-
-// src (B, H) row-major → dst (H, R) k-major for the block's rows; 0 past
-// the batch end.
-__device__ __forceinline__ void load_rows_kmajor(float* dst,
-                                                 const float* __restrict__ src,
-                                                 long long row0, int B, int H,
-                                                 int R, int tid, int nthr) {
-  for (int i = tid; i < R * H; i += nthr) {
-    const int r = i / H, k = i % H;
-    const long long row = row0 + r;
-    dst[k * R + r] = row < B ? ldw1(src + row * H + k) : 0.0f;
-  }
-}
-
-// The cell state of the thread's TR rows x TJ units, src (B, H) → its
-// owner-private slots c[(r * TJ + j) * nthr + tid] (lstm_layer_step's
-// layout), and back; rows past the batch end are 0 and not written.
-__device__ __forceinline__ void load_c(float* c, const float* __restrict__ src,
-                                       long long row0, int B, int H, int r0,
-                                       int j0, int tid, int nthr) {
-#pragma unroll
-  for (int r = 0; r < TR; ++r) {
-    const long long row = row0 + r0 + r;
-    float v[TJ] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (row < B) ldw4(src + row * H + j0, v);
-#pragma unroll
-    for (int j = 0; j < TJ; ++j) c[(r * TJ + j) * nthr + tid] = v[j];
-  }
-}
-
-__device__ __forceinline__ void store_c(float* __restrict__ dst, const float* c,
-                                        long long row0, int B, int H, int r0,
-                                        int j0, int tid, int nthr) {
-#pragma unroll
-  for (int r = 0; r < TR; ++r) {
-    const long long row = row0 + r0 + r;
-    if (row >= B) continue;
-    *reinterpret_cast<float4*>(dst + row * H + j0) =
-        make_float4(c[(r * TJ + 0) * nthr + tid], c[(r * TJ + 1) * nthr + tid],
-                    c[(r * TJ + 2) * nthr + tid], c[(r * TJ + 3) * nthr + tid]);
-  }
-}
 
 // h0 == nullptr: the serve kernel, the encoder over past (B, T_in, D) from
 // zero state, then the decoder. h0, c0 (L, B, H) given (the f32 tier only):
@@ -288,45 +166,18 @@ __global__ void __launch_bounds__(std::is_same<CT, float>::value && STEP_CTX ? 2
   }
 }
 
-// One LSTM step (fused_lstm_cell) for the block's R rows: x (B, Din),
-// h and c (B, H) in, h and c out, every tensor stored in ST. The products of
-// ST values are exact in f32, so the gates and the new c are f32 sums,
-// rounded to ST only where h and c are written. The bf16 tier is
-// lstm_mma.cuh's cell_step (mma.sync, W read as stored, R = 32 · (256 / H)); the
-// f32 tier's body, lstm_layer_step, follows.
+// One LSTM step (fused_lstm_cell) for the block's rows and units: x (B,
+// Din), h and c (B, H) in, h and c out, every tensor stored in ST;
+// lstm_mma.cuh's cell_step on the grid (row tiles of `rows`, unit blocks of
+// `units`; with W resident, w_res, a block takes every gridDim.x-th row
+// tile): f32 in three-pass TF32, bf16 on bf16 mma.sync.
 template <typename ST>
-__global__ void __launch_bounds__(std::is_same<ST, float>::value ? 256 : lstm_mma::CELL_THREADS)
-    lstm_cell_kernel(const ST* __restrict__ x, const ST* __restrict__ h,
-                     const ST* __restrict__ c, const ST* __restrict__ w,
-                     const ST* __restrict__ b, ST* __restrict__ h_out,
-                     ST* __restrict__ c_out, int B, int Din, int H, int R) {
-  if constexpr (!std::is_same<ST, float>::value) {
-    lstm_mma::cell_step(x, h, c, w, b, h_out, c_out, B, Din, H);
-  } else {
-    extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    const int tid = threadIdx.x, nthr = blockDim.x;
-    const int j0 = (tid % (H / TJ)) * TJ;
-    const int r0 = (tid / (H / TJ)) * TR;
-    const int HR = H * R;
-    float* h_s = smem;         // (H, R)
-    float* c_s = h_s + HR;     // (TR * TJ, nthr)
-    float* x_s = c_s + HR;     // (Din, R)
-    const long long row0 = (long long)blockIdx.x * R;
-
-    load_rows_kmajor(x_s, x, row0, B, Din, R, tid, nthr);
-    load_rows_kmajor(h_s, h, row0, B, H, R, tid, nthr);
-    load_c(c_s, c, row0, B, H, r0, j0, tid, nthr);
-    __syncthreads();
-    lstm_layer_step(x_s, Din, h_s, c_s, w, b, H, R, r0, j0, tid, nthr);
-    // the new h, row-major: neighbouring threads write neighbouring units
-    for (int i = tid; i < R * H; i += nthr) {
-      const int r = i / H, k = i % H;
-      const long long row = row0 + r;
-      if (row < B) h_out[row * H + k] = h_s[k * R + r];
-    }
-    store_c(c_out, c_s, row0, B, H, r0, j0, tid, nthr);
-  }
+__global__ void __launch_bounds__(lstm_mma::CELL_THREADS)
+    lstm_cell_kernel(const ST* __restrict__ x, const ST* __restrict__ h, const ST* __restrict__ c,
+                     const ST* __restrict__ w, const ST* __restrict__ b, ST* __restrict__ h_out,
+                     ST* __restrict__ c_out, int B, int Din, int H, int rows, int units, int w_res) {
+  using P = std::conditional_t<std::is_same<ST, float>::value, lstm_mma::Tf32Mma, lstm_mma::Bf16Mma>;
+  lstm_mma::cell_step<P>(x, h, c, w, b, h_out, c_out, B, Din, H, rows, units, w_res);
 }
 
 // The lockstep peer encoders of the serve tier: one LSTM cell of hidden C
@@ -379,13 +230,6 @@ __global__ void __launch_bounds__(512)
   }
 }
 
-static bool bad_shape(int batch, int t_len, int d, int hidden, int layers,
-                      int rows) {
-  return layers < 1 || layers > MAX_LAYERS || hidden < 32 || hidden % 32 ||
-         rows < TR || rows % TR || batch < 1 || t_len < 1 || d < 1 ||
-         (rows / TR) * (hidden / TJ) > 256;
-}
-
 // The pointer arrays (null for an absent part) as the kernels' Weights<CT>.
 template <typename CT>
 static Weights<CT> weights(const void* const* w_enc, const void* const* b_enc,
@@ -434,7 +278,7 @@ static long long mma_smem(bool peer, int rp, int rows, int d, int hidden, int la
 
 // Set the kernel's dynamic shared memory and launch it on (grid, threads).
 template <typename Kernel, typename... Args>
-static int launch(Kernel kernel, int grid, int threads, size_t smem,
+static int launch(Kernel kernel, dim3 grid, int threads, size_t smem,
                   void* stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -504,9 +348,8 @@ extern "C" {
 
 // Each function launches its kernel on `stream` and returns
 // cudaGetLastError() (0 = ok). The pointer arrays hold `layers` device
-// pointers each; `rows` is the batch rows per block (for the FMA body of
-// the f32 cell a multiple of TR, so the block has (rows / TR) * (hidden / TJ)
-// threads). With `bf16` set, the weight matrices (W, proj_w)
+// pointers each; `rows` is the batch rows per block. With `bf16` set, the
+// weight matrices (W, proj_w)
 // are bf16 and the products run in the bf16 compute tier; biases,
 // activations and outputs are f32 in both tiers.
 
@@ -628,39 +471,39 @@ int fused_decode_f32(const void* h0, const void* c0, const void* y0, const void*
 
 // One LSTM step: x (batch, d_in), h and c (batch, hidden), w (d_in + hidden,
 // 4 * hidden), b (4 * hidden,) → h_out, c_out (batch, hidden), every tensor
-// f32, or with `bf16` every tensor bf16. f32: (2 * hidden + d_in) * rows
-// floats of dynamic shared memory. bf16: the tensor-core body, hidden % 16
-// == 0 up to 256, rows = 32 · (256 / hidden) (ops/fused_lstm.py
-// cell_tc_rows), lstm_mma::cell_smem_bytes of shared memory. Both: c, w and
-// b 16-byte aligned; x and h any (the bf16 body copies them in 16-byte
-// pieces where they are aligned, else by element).
-int lstm_cell_launch(const void* x, const void* h, const void* c, const void* w,
-                     const void* b, void* h_out, void* c_out, int batch,
-                     int d_in, int hidden, int rows, int bf16, void* stream) {
-#define CELL(ST, THREADS, SMEM)                                                \
-  launch(lstm_cell_kernel<ST>, (batch + rows - 1) / rows, THREADS, SMEM, stream, \
-         static_cast<const ST*>(x), static_cast<const ST*>(h),                 \
-         static_cast<const ST*>(c), static_cast<const ST*>(w),                 \
-         static_cast<const ST*>(b), static_cast<ST*>(h_out),                   \
-         static_cast<ST*>(c_out), batch, d_in, hidden, rows)
-  if (bf16) {
-    // the tensor-core body: hidden % 16 == 0 up to 256, rows 32 · (256 / hidden)
-    if (batch < 1 || d_in < 1 || !lstm_mma::cell_takes(hidden) || rows != lstm_mma::cell_rows(hidden) ||
-        lstm_mma::cell_smem_bytes(d_in, hidden) > lstm_mma::SMEM_LIMIT)
-      return (int)cudaErrorInvalidValue;
-    return CELL(__nv_bfloat16, lstm_mma::CELL_THREADS, (size_t)lstm_mma::cell_smem_bytes(d_in, hidden));
-  }
-  if (bad_shape(batch, 1, d_in, hidden, 1, rows))
+// f32, or with `bf16` every tensor bf16; any d_in and hidden. Blocks of
+// `rows` x `units`, W resident (w_res) or streamed (lstm_mma::cell_takes;
+// ops/fused_lstm.py cell_block chooses lstm_mma::cell_block's), `grid_x`
+// blocks of row tiles (1 .. the row tiles: the row tiles with W streamed),
+// lstm_mma::cell_geom's warps and shared memory. c, w, b, h_out and c_out
+// 16-byte aligned; x and h at any offset.
+int lstm_cell_launch(const void* x, const void* h, const void* c, const void* w, const void* b, void* h_out,
+                     void* c_out, int batch, int d_in, int hidden, int rows, int units, int w_res, int grid_x,
+                     int bf16, void* stream) {
+  if (batch < 1 || d_in < 1 || hidden < 1 || rows < 1 || units < 1 || (hidden + units - 1) / units > 65535 ||
+      grid_x < 1 || grid_x > (batch + rows - 1) / rows)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)2 * hidden + d_in) * rows * sizeof(float);
-  const int threads = (rows / TR) * (hidden / TJ);
-  return CELL(float, threads, smem);
+#define CELL(ST, P)                                                                                               \
+  do {                                                                                                            \
+    if (!lstm_mma::cell_takes<P>(rows, units, w_res, d_in, hidden)) return (int)cudaErrorInvalidValue;           \
+    const lstm_mma::CellGeom g = lstm_mma::cell_geom<P>(rows, units, w_res, d_in, hidden);                      \
+    return launch(lstm_cell_kernel<ST>, dim3(grid_x, (hidden + units - 1) / units), 32 * g.warps, (size_t)g.smem, \
+                  stream, static_cast<const ST*>(x), static_cast<const ST*>(h), static_cast<const ST*>(c),        \
+                  static_cast<const ST*>(w), static_cast<const ST*>(b), static_cast<ST*>(h_out),                  \
+                  static_cast<ST*>(c_out), batch, d_in, hidden, rows, units, w_res);                             \
+  } while (0)
+  if (bf16) CELL(__nv_bfloat16, lstm_mma::Bf16Mma);
+  CELL(float, lstm_mma::Tf32Mma);
 #undef CELL
 }
 
-// the dynamic shared memory of a block of the bf16 cell on the tensor cores
-// (lstm_mma::cell_smem_bytes), bytes
-int lstm_cell_smem_bytes(int d_in, int hidden) { return (int)lstm_mma::cell_smem_bytes(d_in, hidden); }
+// The cell's block at (d_in, hidden) in the tier (lstm_mma::cell_block) →
+// out: rows, units, warps, W resident, bytes of dynamic shared memory
+void lstm_cell_block(int d_in, int hidden, int bf16, long long* out) {
+  const lstm_mma::CellGeom g = bf16 ? lstm_mma::cell_block<lstm_mma::Bf16Mma>(d_in, hidden)
+                                    : lstm_mma::cell_block<lstm_mma::Tf32Mma>(d_in, hidden);
+  out[0] = g.rows, out[1] = g.units, out[2] = g.warps, out[3] = g.w_res, out[4] = g.smem;
+}
 
 // The probe build's sums (-DLSTM_PROBE; LstmPart order, LP_PARTS of them)
 // into out, then zeroed; without LSTM_PROBE, zeros.

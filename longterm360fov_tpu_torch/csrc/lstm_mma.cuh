@@ -3,12 +3,13 @@
 // (fused_serve.cu), an LSTM over many independent rows from
 // zero state with no feedback (also the training tier's lockstep peer
 // forward, align_peer_fwd_kernel in lstm_align.cu, with its residual
-// stores), and the serve kernel (server below): per step t and layer l,
+// stores), the serve kernel (server below) and the one-step cell
+// (cell_step, at the end): per step t and layer l,
 //   gates = [in_t, h_l,t-1] @ W_l + b_l;  c = f * c + i * g;  h = o * tanh(c).
 // Each body is a template on its product (Bf16Mma or Tf32Mma below): the
 // bf16 tier's products on mma.sync m16n8k16 with bf16 operands, and the f32
 // tier's (peer_context_kernel<float>, fused_encode_kernel<float>,
-// fused_serve_kernel<*, float>) in three-pass TF32 on mma.sync m16n8k8, which keeps 22 bits an operand.
+// fused_serve_kernel<*, float>, lstm_cell_kernel<float>) in three-pass TF32 on mma.sync m16n8k8, which keeps 22 bits an operand.
 //
 // What bounds it on Hopper (peer context at B = 4096, K = 7, T = 100,
 // C = 128: 28,672 rows; one step of a block of 64 rows):
@@ -146,6 +147,7 @@ struct Tile {
 // to bf16, or as it is).
 struct Bf16Mma {
   using E = bf16;
+  using E2 = __nv_bfloat162;  // a pair of E
   static constexpr int KS = 16, PAD = 8;
   __device__ static __forceinline__ E cvt(float x) { return __float2bfloat16_rn(x); }
   __device__ static __forceinline__ float wide(E x) { return __bfloat162float(x); }
@@ -157,6 +159,9 @@ struct Bf16Mma {
     dst[0] = __floats2bfloat162_rn(v.x, v.y);
     dst[1] = __floats2bfloat162_rn(v.z, v.w);
   }
+  __device__ static __forceinline__ E2 ld2(const E* p) { return *reinterpret_cast<const E2*>(p); }
+  __device__ static __forceinline__ E2 pair(E a, E b) { return __halves2bfloat162(a, b); }
+  __device__ static __forceinline__ float2 wide2(E2 v) { return __bfloat1622float2(v); }
   __device__ static __forceinline__ float4 get4(const E* p) {
     const uint2 hv = *reinterpret_cast<const uint2*>(p);
     const float2 h01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hv.x));
@@ -168,6 +173,7 @@ struct Bf16Mma {
 // the f32 tier's three-pass TF32 products (product_tf32)
 struct Tf32Mma {
   using E = float;
+  using E2 = float2;
   static constexpr int KS = 8, PAD = 4;
   __device__ static __forceinline__ E cvt(float x) { return x; }
   __device__ static __forceinline__ float wide(E x) { return x; }
@@ -175,6 +181,9 @@ struct Tf32Mma {
     *reinterpret_cast<float2*>(p) = make_float2(a, b);
   }
   __device__ static __forceinline__ void put4(E* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+  __device__ static __forceinline__ E2 ld2(const E* p) { return *reinterpret_cast<const E2*>(p); }
+  __device__ static __forceinline__ E2 pair(E a, E b) { return make_float2(a, b); }
+  __device__ static __forceinline__ float2 wide2(E2 v) { return v; }
   __device__ static __forceinline__ float4 get4(const E* p) { return *reinterpret_cast<const float4*>(p); }
 };
 
@@ -406,8 +415,8 @@ __device__ __forceinline__ void tile_product(float (&acc)[MT][UT][4][4], const t
 // of the pairs as a float4 (e = 0..3: rows g, g, g + 8, g + 8 at units 2t,
 // 2t + 1) and c_set(mt, ut, c) takes the new one; the new h goes to
 // put(row, unit, h_unit, h_unit+1). The encoders keep c in lane-private f32
-// slots; the one-step cell (cell_step) takes c from, and gives it to, bf16
-// pairs in device memory.
+// slots; the one-step cell (cell_step) takes c from, and gives it to,
+// device memory in the tier's type.
 template <int MT, int UT, typename Bias, typename CGet, typename CSet, typename Put>
 __device__ __forceinline__ void cell(const float (&acc)[MT][UT][4][4], int r0, int u0, int lane,
                                      Bias bias, CGet c_get, CSet c_set, Put put) {
@@ -1011,184 +1020,357 @@ __device__ __forceinline__ void server(const float* __restrict__ past, const flo
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 tier's one-step cell (lstm_cell_kernel<__nv_bfloat16> in
-// fused_serve.cu, replacing the Pallas _cell_kernel of
+// The one-step cell in both tiers (lstm_cell_kernel<ST> in fused_serve.cu,
+// replacing the Pallas _cell_kernel of
 // longterm360fov_tpu/ops/fused_lstm.py::fused_lstm_cell): x (B, D), h and c
-// (B, H), W (D + H, 4H) and b (4H,) stored in bf16, h and c written in bf16;
-// the gates f32 sums of exact products, the cell in exact f32 (cell above).
+// (B, H), W (D + H, 4H) and b (4H,) stored in the tier's E (f32, or bf16 on
+// a bf16 model, whose h and c it writes in bf16); the gates f32 sums, the
+// cell the encoders' exact-f32 cell on the accumulators. The f32 tier's
+// products run in three-pass TF32 (Tf32Mma), the bf16 tier's are the exact
+// products of its bf16 values (Bf16Mma).
 //
 // What bounds it on the card (B = 16384, D = 3 or 128, H = 128): one step
-// has no recurrence to keep on chip, so its bytes, 17-21 MB in and out
-// (about 5-6 µs at 3.35 TB/s), against 2.4-4.3 GFLOP of products (2.5-4.4
-// µs on mma.sync at 600-650 TFLOP/s) and the cell's exact sigmoids and
-// tanhs; and W (150-264 KB), which every block reads from L2.
+// has no recurrence to keep on chip. f32: 2.3-4.3 GFLOP of products, three
+// times that in three-pass TF32 (14-26 µs at 495 / 3 TFLOP/s), against
+// 34-42 MB in and out (10-13 µs at 3.35 TB/s); bf16: 17-21 MB (5-6 µs)
+// against 2.4-4.3 GFLOP (2.5-4.4 µs on mma.sync). Then the cell's exact
+// sigmoids and tanhs, and the L2 reads of W (every row block reads its unit
+// block's columns) and of z (every unit block reads its rows').
 // What the design does about it:
-//   * A block of CELL_THREADS = 512 threads holds R = 32 · (256 / H) rows
-//     (64 at H = 128; H % 16 == 0, H <= 256) as z = [x padded to whole k16
-//     steps | h] in bf16 (the row stride of ldz_of, ldmatrix's eight rows on
-//     distinct banks), staged by cp.async (by element where x or h is not
-//     16-byte aligned); its (R / 32) · (H / 16) <= 16 warp tiles are the
-//     encoders' Tile<2>, 32 rows x 16 units of all four gates, so a lane's
-//     accumulators hold the four gates of its (row, unit) pairs and the cell
-//     (the encoders' cell) runs in registers; warps past the tiles only copy.
-//   * W is read as stored, with no pack, so the k-loop is not product's (which
-//     reads W packed in fragment order, once a call): W streams from L2
-//     through a ring of CELL_STAGES chunks of two k16 steps (32 k-rows x 4H
-//     columns; one at H > 128) by cp.async, three in flight (100 KB at H =
-//     128) while the warps run the product on one, one barrier a chunk; a
-//     warp's B fragments of gate q come by ldmatrix.trans from the columns
-//     q·H + its units. The k-rows of x's last k16 step past D are zeros in
-//     the stage, as x's columns past D are in z.
-//   * c and the bias load as bf16 pairs before the product; the cell takes
-//     them from the registers and writes h and c out in bf16 pairs.
-constexpr int CELL_THREADS = 512;
-constexpr int CELL_STAGES = 4;  // chunks of the ring
+//   * The grid is (row tiles, unit blocks): one step has no recurrence, so
+//     a block need not hold every unit. A block holds R rows and U units of
+//     H, all four gates of each, on up to 16 warps. Its warp tiles are 32
+//     rows x 16 units (bf16, Tile<2>) or 32 x 8 (f32, Tile<2, 1>) of all four
+//     gates, so a lane's accumulators hold the four gates of its (row, unit)
+//     pairs and the cell runs in registers. Every hidden and D is taken: a
+//     ragged last unit block, or a hidden that is not a whole tile, has zero
+//     W columns in the stage and stores nothing past H.
+//   * W's columns of the block (every k-row, 4U columns: gate q of the
+//     block's units at q·U ..) stay in shared memory where they fit beside
+//     the ring, read as stored, with no pack; the block then takes every
+//     gridDim.x-th row tile, one block an SM a unit block (cell_block:
+//     f32 64 x 64, else 128 x 32; bf16 128 x 64; cell_grid). On the card
+//     that ran 8-13 % faster than streaming W beside z, and 128-row blocks
+//     2-6 % faster than 64 rows on 8 warps, two blocks an SM (PERF.md §6).
+//     Where W does not fit (D or H of several hundred), it streams through
+//     the ring beside z, a row tile a block (128 x 32 in f32, x 64 in bf16).
+//   * z = [x | h] streams through a ring of CELL_STAGES chunks of CELL_KC =
+//     32 k-rows, three in flight, one barrier a chunk (z's R x 32 columns
+//     at a row stride 16 bytes past a multiple of 32: ldmatrix's rows on
+//     distinct banks). The k-steps (KS = 8 or 16 k-rows) are x's, padded to
+//     a whole step, then h's, padded likewise, the k-rows past D or H zeros
+//     in the stage, so the ring does not grow with D or H. A thread copies
+//     the same 16-byte pieces of every chunk by cp.async (the Tensor Memory
+//     Accelerator's bulk copies of whole rows took 1.5x as long, PERF.md
+//     §6); a source row that is not whole 16-byte pieces at aligned
+//     addresses comes by element (f32: 4-byte cp.async; bf16: loads and one
+//     16-byte store), so x and h may sit at any offset (x at D = 3 always
+//     does).
+//   * f32: A by ldsm_x4 from the stage as TF32 fragments, B read by element
+//     from it (row stride 4U + 8 words: a warp's 32 reads on 32 banks), both
+//     split by split_fast (on the card, PERF.md §6, the truncating split
+//     read within 1.2e-6 of lstm_cell, split_round 9.5e-7 and 5-8 %
+//     slower), the three
+//     passes into fresh accumulators a chunk (4 k8 steps), then added to the
+//     f32 sums, as product_tf32 does. bf16: A by ldsm_x4, B by
+//     ldsm_x4_trans from the stage, mma.sync m16n8k16 into the f32 sums.
+//   * c loads as pairs before the product, the bias after it; h and c go out
+//     as pairs (by element where H is odd).
+constexpr int CELL_THREADS = 512;  // the kernel's __launch_bounds__: 128 registers a thread
+constexpr int CELL_STAGES = 4;     // chunks of the ring
+constexpr int CELL_KC = 32;        // k-rows a chunk
+constexpr int CELL_ROWS = 128;     // rows a block that streams W
 
-__host__ __device__ inline bool cell_takes(int h) { return h >= 16 && h <= 256 && h % 16 == 0; }
-__host__ __device__ inline int cell_rows(int h) { return 32 * (256 / h); }
-__host__ __device__ inline int cell_ldw(int h) { return 4 * h + 8; }  // bf16 row stride of a ring stage
-// k16 steps of W a chunk of the ring: two, one past H = 128
-__host__ __device__ inline int cell_ksteps(int h) { return h <= 128 ? 2 : 1; }
-// dynamic shared memory of a cell block: z, then the ring
-__host__ __device__ inline long long cell_smem_bytes(int d, int h) {
-  return 2LL * cell_rows(h) * ldz_of(d, h, 1) + 2LL * CELL_STAGES * cell_ksteps(h) * 16 * cell_ldw(h);
+template <typename P>
+using CellTile = Tile<2, std::is_same<P, Tf32Mma>::value ? 1 : 2>;
+
+struct CellGeom {
+  int rows, units, warps, w_res;  // w_res: W's columns of the block resident, the block over many row tiles
+  long long smem;
+};
+
+// row strides of a stage, in E: z's chunk and W's
+template <typename P>
+__host__ __device__ inline int cell_ldz() { return CELL_KC + P::PAD; }
+__host__ __device__ inline int cell_ldw(int units) { return 4 * units + 8; }
+// chunks of CELL_KC k-rows: x's k-steps, padded, then h's
+template <typename P>
+__host__ __device__ inline int cell_chunks(int d, int h) {
+  constexpr int KS = P::KS, CK = CELL_KC / KS;
+  return ((d + KS - 1) / KS + (h + KS - 1) / KS + CK - 1) / CK;
 }
 
-// One step of the block's R rows (blockIdx.x · R ..); every thread of the
-// block calls it.
-__device__ __forceinline__ void cell_step(const bf16* __restrict__ x, const bf16* __restrict__ h,
-                                          const bf16* __restrict__ c, const bf16* __restrict__ w,
-                                          const bf16* __restrict__ b, bf16* __restrict__ h_out,
-                                          bf16* __restrict__ c_out, int B, int D, int H) {
-  using TL = Tile<2>;
-  extern __shared__ float4 smem4[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int R = cell_rows(H), kx = kx_of(D), ldz = ldz_of(D, H, 1), ldw = cell_ldw(H);
-  const long long row0 = (long long)blockIdx.x * R;
-  const int nrows = (int)min((long long)R, (long long)B - row0);
-  bf16* z = reinterpret_cast<bf16*>(smem4);
-  bf16* ring = z + (size_t)R * ldz;
-  const int xsteps = kx / 16, steps = xsteps + H / 16;
+// A block of rows x units: its warps and shared memory, the ring's stages
+// (z's chunk, and W's where it is not resident) then, w_res, W's columns of
+// the block for every chunk
+template <typename P>
+__host__ __device__ inline CellGeom cell_geom(int rows, int units, int w_res, int d, int h) {
+  using TL = CellTile<P>;
+  const long long ring =
+      (long long)CELL_STAGES * ((long long)rows * cell_ldz<P>() + (w_res ? 0 : (long long)CELL_KC * cell_ldw(units)));
+  const long long wr = w_res ? (long long)cell_chunks<P>(d, h) * CELL_KC * cell_ldw(units) : 0;
+  return {rows, units, rows / TL::ROWS * (units / TL::UNITS), w_res, (long long)sizeof(typename P::E) * (ring + wr)};
+}
 
-  // z: 8 columns a piece of x (width D, padded to kx) and of h, rows past
-  // the batch and x's columns past D zero; by cp.async where the source is
-  // whole 16-byte pieces, else by element
-  auto stage = [&](const bf16* src, int width, int padded, int zcol, bool vec) {
-    for (int i = tid; i < R * (padded / 8); i += CELL_THREADS) {
-      const int r = i / (padded / 8), col = (i % (padded / 8)) * 8;
-      bf16* dst = z + (size_t)r * ldz + zcol + col;
-      if (vec) {
-        const bool ok = r < nrows && col < width;
-        cp_async16(dst, ok ? src + (row0 + r) * width + col : src, ok);
-      } else {
-        __align__(16) bf16 v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[e] = r < nrows && col + e < width ? src[(row0 + r) * width + col + e] : __float2bfloat16_rn(0.0f);
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
-      }
-    }
-  };
-  const auto whole = [](const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; };
-  stage(x, D, kx, 0, D % 8 == 0 && whole(x));
-  stage(h, H, H, kx, whole(h));
-  cp_async_commit();
-  // chunk ch of the ring: W's k16 steps kst·ch .. (x's rows, then h's), 4H
-  // columns
-  const int kst = cell_ksteps(H), chunks = (steps + kst - 1) / kst;
-  auto issue = [&](int ch) {
-    if (ch < chunks) {
-      bf16* stg = ring + (size_t)(ch % CELL_STAGES) * kst * 16 * ldw;
-      for (int i = tid; i < kst * 16 * (H / 2); i += CELL_THREADS) {
-        const int r = i / (H / 2), col = (i % (H / 2)) * 8;
-        const int s = ch * kst + r / 16;
-        const int k0 = s < xsteps ? 16 * s : D + 16 * (s - xsteps);
-        const int valid = s >= steps ? 0 : s < xsteps ? min(16, D - 16 * s) : 16;  // W rows of the step
-        const bool ok = r % 16 < valid;
-        cp_async16(stg + (size_t)r * ldw + col, ok ? w + (size_t)(k0 + r % 16) * 4 * H + col : w, ok);
-      }
-    }
-    cp_async_commit();
-  };
-  for (int ch = 0; ch < CELL_STAGES - 1; ++ch) issue(ch);
-
-  // the warp's tile: rows r0 .. r0 + 31, units u0 .. u0 + 15
-  const int bands = H / TL::UNITS;
-  const bool tiled = warp < R / TL::ROWS * bands;
-  const int r0 = warp / bands * TL::ROWS, u0 = warp % bands * TL::UNITS;
-  const int g8 = lane >> 2, t4 = lane & 3;
-  // c and the bias of the lane's pairs (bf16 pairs), loaded before the product
-  __nv_bfloat162 cv[2][TL::UT][2], bv[TL::UT][4];
-  if (tiled) {
-#pragma unroll
-    for (int ut = 0; ut < TL::UT; ++ut) {
-      const int unit = u0 + 8 * ut + 2 * t4;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) bv[ut][q] = *reinterpret_cast<const __nv_bfloat162*>(b + q * H + unit);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = r0 + 16 * mt + g8 + 8 * hh;
-          cv[mt][ut][hh] = r < nrows ? *reinterpret_cast<const __nv_bfloat162*>(c + (row0 + r) * H + unit)
-                                     : __floats2bfloat162_rn(0.0f, 0.0f);
-        }
-    }
+// The tier's block at (d, h) (ops/fused_lstm.py cell_block mirrors it): W
+// resident in the first of the candidate blocks (rows x units, 16 warps;
+// units no more than h rounded up to whole tiles) whose shared memory holds
+// it, else W streamed through the ring in 128-row blocks of 32 (f32) or 64
+// (bf16) units
+template <typename P>
+__host__ __device__ inline CellGeom cell_block(int d, int h) {
+  using TL = CellTile<P>;
+  constexpr bool F32 = std::is_same<P, Tf32Mma>::value;
+  const int whole = (h + TL::UNITS - 1) / TL::UNITS * TL::UNITS;
+  const int cand[2][2] = {{F32 ? 64 : 128, 64}, {128, 32}};  // (rows, units) with W resident; bf16 the first
+  for (int i = 0; i < (F32 ? 2 : 1); ++i) {
+    const CellGeom g = cell_geom<P>(cand[i][0], cand[i][1] < whole ? cand[i][1] : whole, 1, d, h);
+    if (g.smem <= SMEM_LIMIT) return g;
   }
-  float acc[2][TL::UT][4][4];
+  const int streamed = F32 ? 32 : 64;  // units of a streamed block
+  return cell_geom<P>(CELL_ROWS, streamed < whole ? streamed : whole, 0, d, h);
+}
+
+// whether the kernel takes a block of `rows` x `units` (w_res: W resident)
+// at (d, h)
+template <typename P>
+__host__ __device__ inline bool cell_takes(int rows, int units, int w_res, int d, int h) {
+  using TL = CellTile<P>;
+  if (rows < TL::ROWS || rows % TL::ROWS || units < TL::UNITS || units % TL::UNITS) return false;
+  const CellGeom g = cell_geom<P>(rows, units, w_res, d, h);
+  return g.warps <= CELL_THREADS / 32 && g.smem <= SMEM_LIMIT;
+}
+
+// A chunk's products of the warp's tile (`ks` of its k-steps): za, z's
+// stage at the tile's first row; wb, W's stage at the tile's first unit
+// (gate q at wb + q·U). f32: three-pass TF32 in fresh accumulators, then
+// into sum; bf16: into sum.
+template <typename P, int UT>
+__device__ __forceinline__ void cell_chunk(float (&sum)[2][UT][4][4], const typename P::E* za,
+                                           const typename P::E* wb, int ldz, int ldw, int U, int ks, int lane) {
+  constexpr int CK = CELL_KC / P::KS;
+  if constexpr (std::is_same<P, Tf32Mma>::value) {
+    float acc[2][4][4] = {};
+    const float* ap = za + (lane & 15) * ldz + (lane >> 4) * 4;
+    const float* bp = wb + (lane & 3) * ldw + (lane >> 2);  // k-row t, unit g of the n-tile
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int j = 0; j < CK; ++j) {
+      if (j < ks) {
+        unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
-    for (int ut = 0; ut < TL::UT; ++ut)
+        for (int mt = 0; mt < 2; ++mt) {
+          unsigned r[4];
+          ldsm_x4(r, ap + mt * 16 * ldz + 8 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_fast(__uint_as_float(r[e]), ah[mt][e], al[mt][e]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) split_fast(bp[(8 * j + 4 * hf) * ldw + q * U], bh[q][hf], bl[q][hf]);
+        // a_lo·b_hi, a_hi·b_lo, a_hi·b_hi: the small terms first
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const unsigned(&b)[2] = pass == 1 ? bl[q] : bh[q];
+              mma_tf32(acc[mt][q], pass == 0 ? al[mt] : ah[mt], b[0], b[1]);
+            }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][ut][q][e] = 0.0f;
-  const bf16* a_lane = z + (size_t)(r0 + (lane & 15)) * ldz + (lane >> 4) * 8;
-  const int w_lane = (lane & 15) * ldw + u0 + (lane >> 4) * 8;
-  for (int ch = 0; ch < chunks; ++ch) {
-    cp_async_wait<CELL_STAGES - 2>();
-    __syncthreads();  // chunk ch landed for every thread; the stage of chunk ch - 1 is free
-    issue(ch + CELL_STAGES - 1);
+        for (int e = 0; e < 4; ++e) sum[mt][0][q][e] += acc[mt][q][e];
+  } else {
+    const bf16* ap = za + (lane & 15) * ldz + (lane >> 4) * 8;
+    const bf16* bp = wb + (lane & 15) * ldw + (lane >> 4) * 8;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int s = ch * kst + j;
-      if (tiled && j < kst && s < steps) {
-        const int kz = s < xsteps ? 16 * s : kx + 16 * (s - xsteps);  // z's column of the step
-        unsigned a[2][4], bq[4][4];
+    for (int j = 0; j < CK; ++j) {
+      if (j < ks) {
+        unsigned a[2][4];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) ldsm_x4(a[mt], a_lane + (size_t)mt * 16 * ldz + kz);
-        const bf16* ws = ring + ((size_t)(ch % CELL_STAGES) * kst + j) * 16 * ldw + w_lane;
+        for (int mt = 0; mt < 2; ++mt) ldsm_x4(a[mt], ap + mt * 16 * ldz + 16 * j);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) ldsm_x4_trans(bq[q], ws + q * H);
+        for (int q = 0; q < 4; ++q) {  // a gate's B fragments at a time: 4 registers, not 16, beside the sums
+          unsigned bq[4];
+          ldsm_x4_trans(bq, bp + 16 * j * ldw + q * U);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            mma_bf16(acc[mt][0][q], a[mt], bq[q][0], bq[q][1]);
-            mma_bf16(acc[mt][1][q], a[mt], bq[q][2], bq[q][3]);
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(sum[mt][0][q], a[mt], bq[0], bq[1]);
+            mma_bf16(sum[mt][1][q], a[mt], bq[2], bq[3]);
           }
+        }
       }
     }
   }
-  if (!tiled) return;
-  // the cell on the accumulators; h and c out in bf16 pairs, rows past the
-  // batch not written
-  auto out_pair = [&](bf16* dst, int row, int unit, float v0, float v1) {
-    if (row < nrows) *reinterpret_cast<__nv_bfloat162*>(dst + (row0 + row) * H + unit) = __floats2bfloat162_rn(v0, v1);
+}
+
+// One step of the block's row tiles (R rows: blockIdx.x, blockIdx.x +
+// gridDim.x, .. of them) and U units (blockIdx.y · U ..); W's columns of
+// the block resident in shared memory (w_res) or streamed with z. Every
+// thread of the block calls it.
+template <typename P>
+__device__ __forceinline__ void cell_step(const typename P::E* __restrict__ x, const typename P::E* __restrict__ h,
+                                          const typename P::E* __restrict__ c, const typename P::E* __restrict__ w,
+                                          const typename P::E* __restrict__ b, typename P::E* __restrict__ h_out,
+                                          typename P::E* __restrict__ c_out, int B, int D, int H, int R, int U,
+                                          int w_res) {
+  using E = typename P::E;
+  using TL = CellTile<P>;
+  constexpr int KS = P::KS, CK = CELL_KC / KS, PV = 16 / sizeof(E);  // k-steps a chunk; elements a 16-byte piece
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int ldz = cell_ldz<P>(), ldw = cell_ldw(U);
+  const int u0 = blockIdx.y * U, nunits = min(U, H - u0);
+  const int xsteps = (D + KS - 1) / KS, steps = xsteps + (H + KS - 1) / KS, chunks = (steps + CK - 1) / CK;
+  const long long row_tiles = ((long long)B + R - 1) / R;
+  const int total = (int)((row_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x) * chunks;  // the block's chunks
+  const int stage = R * ldz + (w_res ? 0 : CELL_KC * ldw);  // elements a stage: z's chunk (and W's)
+  E* ring = reinterpret_cast<E*>(smem4);
+  E* wres = ring + (size_t)CELL_STAGES * stage;  // w_res: W's columns of the block, chunk after chunk
+  auto tile_row0 = [&](int ti) { return ((long long)blockIdx.x + (long long)ti * gridDim.x) * R; };
+  const auto whole = [](const void* p, int n) { return n % PV == 0 && (reinterpret_cast<size_t>(p) & 15) == 0; };
+  const bool x_vec = whole(x, D), h_vec = whole(h, H), w_vec = whole(w, H);
+
+  // PV elements at dst from src, `valid` of them, the rest zeros: one
+  // 16-byte cp.async where vec (valid is PV or 0 there), else by element
+  auto piece = [&](E* dst, const E* src, bool vec, int valid) {
+    if (vec) {
+      cp_async16(dst, valid > 0 ? src : w, valid > 0);
+    } else if constexpr (std::is_same<P, Tf32Mma>::value) {
+#pragma unroll
+      for (int e = 0; e < PV; ++e) cp_async4(dst + e, e < valid ? src + e : w, e < valid);
+    } else {
+      __align__(16) E v[PV];
+#pragma unroll
+      for (int e = 0; e < PV; ++e) v[e] = e < valid ? src[e] : P::cvt(0.0f);
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+    }
   };
-  cell<2>(
-      acc, r0, u0, lane, [&](int ut, int q, int) { return __bfloat1622float2(bv[ut][q]); },
-      [&](int mt, int ut) {
-        const float2 lo = __bfloat1622float2(cv[mt][ut][0]), hi = __bfloat1622float2(cv[mt][ut][1]);
-        return make_float4(lo.x, lo.y, hi.x, hi.y);
-      },
-      [&](int mt, int ut, float4 cn) {
-        const int row = r0 + 16 * mt + g8, unit = u0 + 8 * ut + 2 * t4;
-        out_pair(c_out, row, unit, cn.x, cn.y);
-        out_pair(c_out, row + 8, unit, cn.z, cn.w);
-      },
-      [&](int row, int unit, float h0, float h1) { out_pair(h_out, row, unit, h0, h1); });
+  // A thread's pieces are the same in every chunk: z's column zk of rows
+  // zr0, zr0 + zdr, ..; W's gate wq, its columns wu .. of rows wk0, wk0 + wdk,
+  // .. (a block's threads are whole rows of pieces of both: R / 8 rows of
+  // W's, 32·R / (8 or 4) of z's)
+  constexpr int ZP = CELL_KC / PV;  // pieces of a row of z's chunk
+  const int zk = tid % ZP * PV, zr0 = tid / ZP, zdr = nthr / ZP;
+  const int WP = U / PV, NWP = 4 * WP;  // pieces of a gate's U columns, of a row of W's chunk
+  const int wq = tid % NWP / WP, wu = tid % WP * PV, wk0 = tid / NWP, wdk = nthr / NWP;
+  const int wvalid = max(0, min(PV, nunits - wu));
+  // k-step s = ch·CK + k / KS of chunk ch is x's columns and W's rows KS·s
+  // .. (s < xsteps), else h's columns KS·(s - xsteps) .. and W's rows D +
+  // KS·(s - xsteps) ..
+  auto issue_w = [&](int ch, E* ws) {  // W's chunk ch into ws
+    for (int k = wk0; k < CELL_KC; k += wdk) {
+      const int s = ch * CK + k / KS;
+      const bool xs = s < xsteps;
+      const int kr = (xs ? s : s - xsteps) * KS + k % KS;  // the k-row in x's or h's part of W
+      const bool ok = s < steps && kr < (xs ? D : H);
+      const E* src = w + ((size_t)(xs ? kr : D + kr) * 4 + wq) * H + u0 + wu;
+      piece(ws + k * ldw + wq * U + wu, src, w_vec, ok ? wvalid : 0);
+    }
+  };
+  auto issue = [&](int g) {  // the block's chunk g (chunk g % chunks of its tile g / chunks) into its stage
+    if (g < total) {
+      const int ti = g / chunks, ch = g - ti * chunks;
+      const long long r0 = tile_row0(ti);
+      const int nr = (int)min((long long)R, (long long)B - r0);
+      E* zs = ring + (size_t)(g % CELL_STAGES) * stage;
+      const int s = ch * CK + zk / KS;
+      const bool xs = s < xsteps;
+      const int col = (xs ? s : s - xsteps) * KS + zk % KS, ld = xs ? D : H;
+      const int valid = max(0, min(PV, (s >= steps ? 0 : ld) - col));
+      const E* src = (xs ? x : h) + r0 * ld + col;
+      for (int r = zr0; r < R; r += zdr)
+        piece(zs + r * ldz + zk, src + (long long)r * ld, xs ? x_vec : h_vec, r < nr ? valid : 0);
+      if (!w_res) issue_w(ch, zs + R * ldz);
+    }
+    cp_async_commit();
+  };
+  LstmProbe pr(g_lstm_probe);
+  if (w_res)  // every chunk of W, in the first group
+    for (int ch = 0; ch < chunks; ++ch) issue_w(ch, wres + (size_t)ch * CELL_KC * ldw);
+  for (int g = 0; g < CELL_STAGES - 1; ++g) issue(g);
+
+  // the warp's tile: rows r0 .. of the block, units uw .. of the block
+  const int utiles = U / TL::UNITS, r0 = warp / utiles * TL::ROWS, uw = warp % utiles * TL::UNITS;
+  const bool tiled = u0 + uw < H;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  // c, b, h_out and c_out are 16-byte aligned: a pair at an even unit is
+  // whole where H is even
+  const bool pairs = H % 2 == 0;
+  auto ld2 = [&](const E* p, int unit) {  // the pair at p (unit), as stored; 0 past H
+    if (pairs && unit < H) return P::ld2(p);
+    return P::pair(unit < H ? p[0] : P::cvt(0.0f), unit + 1 < H ? p[1] : P::cvt(0.0f));
+  };
+  auto st2 = [&](E* p, int unit, float v0, float v1) {  // nothing past H
+    if (pairs) {
+      if (unit < H) P::put2(p, v0, v1);
+    } else {
+      if (unit < H) p[0] = P::cvt(v0);
+      if (unit + 1 < H) p[1] = P::cvt(v1);
+    }
+  };
+  pr.mark(LP_STATES);
+
+  float sum[2][TL::UT][4][4];
+  typename P::E2 cv[2][TL::UT][2];  // c of the lane's pairs, as stored
+  for (int g = 0; g < total; ++g) {
+    const int ti = g / chunks, ch = g - ti * chunks;
+    const long long row0 = tile_row0(ti);
+    const int nrows = (int)min((long long)R, (long long)B - row0);
+    if (ch == 0) {
+      // c of the lane's pairs (rows r0 + 16·mt + g8 and + 8, units u0 + uw +
+      // 8·ut + 2·t4 and + 1), loaded before the tile's product; 0 past the
+      // batch
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int ut = 0; ut < TL::UT; ++ut) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = r0 + 16 * mt + g8 + 8 * hh, unit = u0 + uw + 8 * ut + 2 * t4;
+            cv[mt][ut][hh] = ld2(c + (row0 + row) * H + unit, tiled && row < nrows ? unit : H);
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sum[mt][ut][q][e] = 0.0f;
+        }
+      pr.mark(LP_STATES);
+    }
+    cp_async_wait<CELL_STAGES - 2>();
+    __syncthreads();  // chunk g landed for every thread; the stage of chunk g - 1 is free
+    pr.mark(LP_BARRIERS);
+    issue(g + CELL_STAGES - 1);
+    pr.mark(LP_STAGE);
+    const E* zs = ring + (size_t)(g % CELL_STAGES) * stage;
+    const E* wst = w_res ? wres + (size_t)ch * CELL_KC * ldw : zs + R * ldz;
+    if (tiled) cell_chunk<P>(sum, zs + r0 * ldz, wst + uw, ldz, ldw, U, min(CK, steps - ch * CK), lane);
+    pr.mark(LP_PRODUCTS);
+    if (tiled && ch == chunks - 1) {
+      // the cell on the accumulators; h and c out, nothing past the batch or H
+      cell<2>(
+          sum, r0, u0 + uw, lane, [&](int, int q, int unit) { return P::wide2(ld2(b + q * H + unit, unit)); },
+          [&](int mt, int ut) {
+            const float2 lo = P::wide2(cv[mt][ut][0]), hi = P::wide2(cv[mt][ut][1]);
+            return make_float4(lo.x, lo.y, hi.x, hi.y);
+          },
+          [&](int mt, int ut, float4 cn) {
+            const int row = r0 + 16 * mt + g8, unit = u0 + uw + 8 * ut + 2 * t4;
+            if (row < nrows) st2(c_out + (row0 + row) * H + unit, unit, cn.x, cn.y);
+            if (row + 8 < nrows) st2(c_out + (row0 + row + 8) * H + unit, unit, cn.z, cn.w);
+          },
+          [&](int row, int unit, float h0, float h1) {
+            if (row < nrows) st2(h_out + (row0 + row) * H + unit, unit, h0, h1);
+          });
+      pr.mark(LP_CELL);
+    }
+  }
 }
 
 }  // namespace lstm_mma

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -22,7 +23,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["Build", "find_nvcc", "build", "load"]
+__all__ = ["Build", "find_nvcc", "build", "load", "sm_count"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -95,3 +96,12 @@ def build(name: str, defines=()) -> Build:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``."""
     return ctypes.CDLL(str(build(name).path))
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """The streaming multiprocessors of CUDA ``device``: the kernels' block
+    choosers size their grids by it."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -15,9 +15,10 @@ follow: ``(B, H, W)`` f32 → ``(B, C, h, w)`` f32.
 * :func:`fused_conv_resize`, the wrapper: on CPU tensors it runs the plain
   version; on CUDA tensors it launches ``csrc/conv_resize.cu``, whose header
   says what bounds it and why it gathers the two taps of each output row and
-  column (:func:`resize_taps`) instead of forming the dense products; it
-  never falls back. Like the TPU kernel it has no backward: an input that
-  requires grad raises. ``.launches`` counts its kernel launches.
+  column (:func:`resize_taps`) instead of forming the dense products, in
+  tiles of :func:`conv_tile` (any output width); it never falls back. Like
+  the TPU kernel it has no backward: an input that requires grad raises.
+  ``.launches`` counts its kernel launches.
 
 The kernel takes odd K only: the TPU kernel pads K//2 on each side, and at
 even K that is not what its own reference's "SAME" pads, so even K raises
@@ -28,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -41,10 +42,14 @@ __all__ = [
     "resize_taps",
     "conv_resize_reference",
     "fused_conv_resize",
-    "tile_rows",
+    "ConvTile",
+    "conv_smem",
+    "conv_tile",
 ]
 
-_STATIC_SMEM = 48 * 1024  # dynamic shared memory a launch takes without an opt-in
+_SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use (227 KB)
+_MAX_TILE_COLS = 256  # output columns a block at most
+_MAX_GRID = 65535  # the grid's y and z dimensions
 
 
 def resize_matrix(dst: int, src: int) -> np.ndarray:
@@ -124,18 +129,43 @@ def conv_resize_reference(
     return torch.relu(out + bias[None, :, None, None])
 
 
-def tile_rows(h: int, w: int, c_out: int, ksize: int) -> int:
-    """Output rows per block: 8 (several blocks a frame), fewer at short
-    frames, halved until the block's shared memory (kernels, bias and the
-    rows of small with the conv's halo) fits the 48 KB a launch takes
-    without an opt-in. Raises when one row does not fit."""
+class ConvTile(NamedTuple):
+    """A block of the kernel: ``rows`` x ``cols`` output pixels of one
+    frame, ``smem`` bytes of dynamic shared memory."""
+    rows: int
+    cols: int
+    smem: int
+
+
+def conv_smem(rows: int, cols: int, c_out: int, ksize: int) -> int:
+    """``csrc/conv_resize.cu``'s shared memory of a block (bytes): the
+    filters and bias, the row and column taps of the tile with its K//2
+    halo (4 values each), and from a 16-byte boundary small with the halo,
+    its rows padded to whole 16 bytes."""
     pad = ksize // 2
-    rows = min(8, h)
-    while rows >= 1 and 4 * (c_out * (ksize * ksize + 1) + (rows + 2 * pad) * (w + 2 * pad)) > _STATIC_SMEM:
-        rows //= 2
-    if rows < 1:
-        raise ValueError(f"an output row of width {w} with K={ksize} does not fit one block's shared memory")
-    return rows
+    pr, pc = rows + 2 * pad, cols + 2 * pad
+    head = -(-(c_out * (ksize * ksize + 1) + 4 * pr + 4 * pc) // 4) * 4
+    return 4 * (head + pr * -(-pc // 4) * 4)
+
+
+def conv_tile(batch: int, h: int, w: int, c_out: int, ksize: int, sms: int = 132) -> ConvTile:
+    """The kernel's tile: rows of up to 256 output columns (a multiple of
+    4: 16-byte stores); whole frames where ``batch`` frames alone make two
+    blocks for each of ``sms`` SMs (no halo computed twice), else bands of 8
+    rows (64 frames of 32 rows: 256 blocks, measured faster than bands of 4,
+    7, 16 or 32 on the card, PERF.md §6); halved while its shared memory
+    passes 227 KB. Any width is taken; raises, naming the shape, where even
+    one row does not fit (a filter bank past shared memory)."""
+    cols = min(-(-w // 4) * 4, _MAX_TILE_COLS)
+    col_tiles = -(-w // cols)
+    rows = h if batch * col_tiles >= 2 * sms else min(h, 8)
+    while rows > 1 and conv_smem(rows, cols, c_out, ksize) > _SMEM_LIMIT:
+        rows = -(-rows // 2)
+    smem = conv_smem(rows, cols, c_out, ksize)
+    if smem > _SMEM_LIMIT or -(-h // rows) > _MAX_GRID or col_tiles > _MAX_GRID:
+        raise ValueError(f"out_hw=({h}, {w}), C={c_out}, K={ksize}: a block of {rows} x {cols} output pixels does "
+                         f"not fit one block's shared memory ({smem} bytes, at most {_SMEM_LIMIT}) or the grid")
+    return ConvTile(rows, cols, smem)
 
 
 @functools.cache
@@ -170,7 +200,7 @@ def fused_conv_resize(
     batch, src_h, src_w = frames.shape
     h, w = out_hw
     c_out, ksize = kernels.shape[0], kernels.shape[-1]
-    rows = tile_rows(h, w, c_out, ksize)
+    tile = conv_tile(batch, h, w, c_out, ksize, _build.sm_count(frames.device))
     ridx, rwt = _taps_on(h, src_h, frames.device)
     cidx, cwt = _taps_on(w, src_w, frames.device)
     out = torch.empty((batch, c_out, h, w), device=frames.device, dtype=torch.float32)
@@ -178,7 +208,7 @@ def fused_conv_resize(
         err = _library().conv_resize_f32(
             frames.data_ptr(), ridx.data_ptr(), rwt.data_ptr(), cidx.data_ptr(), cwt.data_ptr(),
             kernels.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            batch, src_h, src_w, h, w, c_out, ksize, rows,
+            batch, src_h, src_w, h, w, c_out, ksize, tile.rows, tile.cols,
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
@@ -198,8 +228,10 @@ def _library() -> ctypes.CDLL:
     """The kernel's library, built at first use and loaded once."""
     lib = _build.load("conv_resize")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.conv_resize_f32.argtypes = [vp] * 8 + [i32] * 8 + [vp]
+    lib.conv_resize_f32.argtypes = [vp] * 8 + [i32] * 9 + [vp]
     lib.conv_resize_f32.restype = i32
+    lib.conv_resize_smem_bytes.argtypes = [i32] * 4
+    lib.conv_resize_smem_bytes.restype = ctypes.c_longlong
     lib.conv_resize_error_string.argtypes = [i32]
     lib.conv_resize_error_string.restype = ctypes.c_char_p
     return lib

@@ -39,8 +39,9 @@ cores (``csrc/lstm_mma.cuh``), their W packed once a call by
 three-pass TF32 (``Tf32Mma``), their W packed by :func:`pack_weights_tf32`
 and their blocks chosen by :func:`peer_tf32_rows`, :func:`encode_tf32_rows`
 and :func:`serve_tf32_rows`;
-so does the cell on bf16 tensors, W read as stored (nothing packed: the
-cell is launched once a step), its block from :func:`cell_tc_rows`. Each wrapper runs its
+so does the cell in both tiers (f32 in three-pass TF32), W read as stored
+(nothing packed: the cell is launched once a step), on a grid of row and
+unit blocks of :func:`cell_block`. Each wrapper runs its
 plain version (:func:`fused_serve_reference`, :func:`peer_context_reference`,
 :func:`fused_encode_reference`, :func:`fused_decode_reference`, and
 ``models.cell.lstm_cell`` for the cell) on CPU tensors, and launches its
@@ -85,17 +86,18 @@ __all__ = [
     "fused_decode",
     "fused_decode_reference",
     "fused_lstm_cell",
-    "cell_tc_rows",
-    "cell_w_steps",
-    "kernel_rows",
+    "CellGeom",
+    "cell_geom",
+    "cell_block",
+    "cell_grid",
+    "cell_k_steps",
+    "cell_w_columns",
     "exact_f32_matmul",
     "refuse_grad",
 ]
 
 MAX_LAYERS = 8  # csrc/fused_serve.cu MAX_LAYERS
 _SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use (227 KB)
-_MAX_THREADS = 256  # the kernel's __launch_bounds__
-_TR, _TJ = 8, 4  # rows and hidden units per thread
 
 
 def exact_f32_matmul():
@@ -242,27 +244,6 @@ def fused_encode_reference(params: Sequence[LSTMParams], xs: torch.Tensor,
     products round their operands and the h returned is rounded too."""
     _no_tf32(xs, "fused_encode_reference")
     return round_to(_encode_states(params, xs, compute_dtype)[-1][0], compute_dtype)
-
-
-def kernel_rows(hidden: int, layers: int, d: int) -> int:
-    """Batch rows per block of the f32 FMA body (``csrc/fused_serve.cu``'s
-    ``lstm_layer_step``: the f32 cell, one layer): as many as 256 threads of
-    8 rows x 4 hidden units cover, halved until the block's shared memory (h
-    and c of every layer, and the layer-0 input: ``d`` floats a row) fits.
-    Raises for shapes the body does not take."""
-    if hidden < 32 or hidden % 32:
-        raise ValueError(f"the kernel needs hidden % 32 == 0, got {hidden}")
-    if not 1 <= layers <= MAX_LAYERS:
-        raise ValueError(f"the kernel takes 1..{MAX_LAYERS} layers, got {layers}")
-    rows = min(64, _MAX_THREADS // (hidden // _TJ) * _TR)
-    while rows >= _TR and 4 * (2 * layers * hidden + d) * rows > _SMEM_LIMIT:
-        rows //= 2
-    if rows < _TR:
-        raise ValueError(
-            f"layers={layers}, hidden={hidden}: h and c of every layer do "
-            f"not fit one block's shared memory"
-        )
-    return rows
 
 
 def _check_tensors(expect, device):
@@ -970,39 +951,104 @@ def fused_decode(
 fused_decode.launches = 0
 
 
-_CELL_STAGES = 4  # csrc/lstm_mma.cuh CELL_STAGES: chunks of the ring, of cell_ksteps k16 steps of W
+# csrc/lstm_mma.cuh: CELL_STAGES chunks of the ring, CELL_KC k-rows a
+# chunk, CELL_ROWS rows a streamed block; CellTile's units (32 rows x 8
+# units in f32, x 16 in bf16), by tier (bf16: True)
+_CELL_STAGES, _CELL_KC, _CELL_ROWS = 4, 32, 128
+_CELL_TILE_UNITS = {False: 8, True: 16}
+# cell_block's candidate blocks with W resident, (rows, units) in the order
+# tried, and the units of a block that streams W
+_CELL_RESIDENT = {False: ((64, 64), (128, 32)), True: ((128, 64),)}
+_CELL_STREAMED_UNITS = {False: 32, True: 64}
+_CELL_MAX_UNIT_BLOCKS = 65535  # the grid's y dimension
+_SM_REGS, _SM_SMEM = 65536, 233472  # an SM's registers and shared memory (1 KB of it a block's)
 
 
-@functools.lru_cache(maxsize=64)
-def cell_tc_rows(d_in: int, hidden: int) -> int:
-    """Rows a block of the bf16 cell on the tensor cores
-    (``csrc/lstm_mma.cuh`` cell_step): 32 · (256 // hidden), so that its
-    (rows / 32) · (hidden / 16) warp tiles of 32 rows x 16 units fill as
-    many of its 16 warps as they can (all 16 where hidden divides 256).
-    Raises for shapes it does not take: hidden not a multiple of 16 or past
-    256, or z (the rows' [x padded to a k16 step, h] in bf16) and the ring
-    of W's k16 steps past a block's shared memory."""
-    if hidden % 16 or not 16 <= hidden <= 256:
-        raise ValueError(f"the bf16 cell kernel takes hidden % 16 == 0 up to 256 (warp tiles of 32 rows x 16 "
-                         f"units), got hidden={hidden}")
-    rows = 32 * (256 // hidden)
-    ring_rows = _CELL_STAGES * (2 if hidden <= 128 else 1) * 16
-    smem = 2 * rows * (-(-d_in // 16) * 16 + hidden + 8) + 2 * ring_rows * (4 * hidden + 8)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"D_in={d_in}, hidden={hidden}: the bf16 cell's block of {rows} rows needs {smem} bytes of "
-                         f"shared memory, more than {_SMEM_LIMIT}")
-    return rows
+class CellGeom(NamedTuple):
+    """A block of the cell kernel: ``rows`` x ``units`` of H (all four gates
+    of each), ``warps`` warps, W's columns of the block resident in shared
+    memory (``w_res``: the block takes many row tiles) or streamed with z,
+    ``smem`` bytes of dynamic shared memory."""
+    rows: int
+    units: int
+    warps: int
+    w_res: bool
+    smem: int
 
 
-def cell_w_steps(d_in: int, hidden: int) -> list:
-    """The bf16 cell's ring over W as stored, (D_in + H, 4H), two k16 steps
-    a chunk (one past H = 128): per k16 step, (first row of W, rows of W it holds, z's first
-    column). x's steps come first, its last one's rows past D_in zeros in
-    the stage (as x's columns past D_in are zeros in z, which holds x padded
-    to a whole k16 step, then h); then h's steps, W's rows D_in + 16·i."""
-    kx = -(-d_in // 16) * 16
-    return ([(16 * s, min(16, d_in - 16 * s), 16 * s) for s in range(kx // 16)]
-            + [(d_in + 16 * s, 16, kx + 16 * s) for s in range(hidden // 16)])
+def _cell_chunks(d_in: int, hidden: int, bf16: bool) -> int:
+    ks = 16 if bf16 else 8
+    return -(-(-(-d_in // ks) + -(-hidden // ks)) // (_CELL_KC // ks))
+
+
+def cell_geom(rows: int, units: int, w_res: bool, d_in: int, hidden: int, bf16: bool) -> CellGeom:
+    """``lstm_mma::cell_geom``: a warp a tile of 32 rows x 8 (f32) or 16
+    (bf16) units; shared memory the ring's stages, each z's chunk (rows x 32
+    k-columns, a 16-byte pad more a row) and, W streamed, W's (32 k-rows x
+    4·units, 8 elements more a row), then, W resident, W's columns of the
+    block for every chunk."""
+    e = 2 if bf16 else 4
+    ldw = 4 * units + 8
+    ring = _CELL_STAGES * (rows * (_CELL_KC + 16 // e) + (0 if w_res else _CELL_KC * ldw))
+    wr = _cell_chunks(d_in, hidden, bf16) * _CELL_KC * ldw if w_res else 0
+    return CellGeom(rows, units, rows // 32 * (units // _CELL_TILE_UNITS[bf16]), w_res, e * (ring + wr))
+
+
+@functools.lru_cache(maxsize=256)
+def cell_block(d_in: int, hidden: int, bf16: bool) -> CellGeom:
+    """The cell kernel's block (``lstm_mma::cell_block``, which it mirrors):
+    W's columns of the block resident in the first candidate of 16 warps
+    (f32: 64 rows x 64 units, then 128 x 32; bf16: 128 x 64; units no more
+    than hidden rounded up to whole warp tiles) whose shared memory holds
+    them, the block then taking many row tiles (:func:`cell_grid`); else W
+    streamed with z through the ring in blocks of 128 rows x 32 (f32) or 64
+    (bf16) units. z streams in k-chunks, so every D_in and hidden is taken
+    (a ValueError names a shape that is not)."""
+    if d_in < 1 or hidden < 1:
+        raise ValueError(f"the cell kernel takes D_in >= 1 and hidden >= 1, got D_in={d_in}, hidden={hidden}")
+    whole = -(-hidden // _CELL_TILE_UNITS[bf16]) * _CELL_TILE_UNITS[bf16]
+    for rows, units in _CELL_RESIDENT[bf16]:
+        geo = cell_geom(rows, min(units, whole), True, d_in, hidden, bf16)
+        if geo.smem <= _SMEM_LIMIT:
+            break
+    else:
+        geo = cell_geom(_CELL_ROWS, min(_CELL_STREAMED_UNITS[bf16], whole), False, d_in, hidden, bf16)
+    if -(-hidden // geo.units) > _CELL_MAX_UNIT_BLOCKS:
+        raise ValueError(f"hidden={hidden}: more than {_CELL_MAX_UNIT_BLOCKS} unit blocks of {geo.units}")
+    return geo
+
+
+def cell_grid(geo: CellGeom, batch: int, hidden: int, sms: int) -> int:
+    """Blocks along the batch: every row tile its own where W streams;
+    with W resident, as many as the ``sms`` SMs hold at once (at 128
+    registers a thread, the kernel's bound) for each unit block, each
+    taking every so many row tiles."""
+    tiles = -(-batch // geo.rows)
+    if not geo.w_res:
+        return tiles
+    per_sm = min(_SM_REGS // (32 * geo.warps * 128), _SM_SMEM // (geo.smem + 1024))
+    return max(1, min(tiles, sms * per_sm // -(-hidden // geo.units)))
+
+
+def cell_k_steps(d_in: int, hidden: int, bf16: bool) -> list:
+    """The k-steps of the cell's ring (k8 in f32, k16 in bf16; CELL_KC = 32
+    k-rows, 4 or 2 steps, a chunk), in order: (the z part, "x" or "h", its
+    first column, the columns it holds, W's first row). x's steps come
+    first, its last one's columns past D_in zeros in the stage (as W's rows
+    past them are), then h's, padded likewise; W's rows are x's, then
+    D_in + h's."""
+    ks = 16 if bf16 else 8
+    return ([("x", ks * s, min(ks, d_in - ks * s), ks * s) for s in range(-(-d_in // ks))]
+            + [("h", ks * s, min(ks, hidden - ks * s), d_in + ks * s) for s in range(-(-hidden // ks))])
+
+
+def cell_w_columns(hidden: int, units: int, block: int) -> torch.Tensor:
+    """W's column behind each of the 4·units columns of unit block
+    ``block``'s stage (gate q of its units u at q·units + u: W's column
+    q·hidden + block·units + u), -1 for a zero column (a unit past H)."""
+    u = torch.arange(units) + block * units
+    cols = torch.arange(4)[:, None] * hidden + u
+    return torch.where(u < hidden, cols, torch.full_like(cols, -1)).flatten()
 
 
 def fused_lstm_cell(params: LSTMParams, x: torch.Tensor, state):
@@ -1012,10 +1058,11 @@ def fused_lstm_cell(params: LSTMParams, x: torch.Tensor, state):
     f32 or, on a bf16 model, all bf16: then the gates and the new c are f32
     sums of exact products, and h and c are written in bf16, as the TPU
     kernel writes them in the inputs' dtypes (so the c carry is rounded,
-    unlike the serve kernel's). The bf16 kernel runs on the tensor cores,
-    its block from :func:`cell_tc_rows`, W read as stored
-    (:func:`cell_w_steps`). No backward, as the TPU kernel has none: an
-    input that requires grad raises on both devices."""
+    unlike the serve kernel's). Both tiers run on the tensor cores, f32 in
+    three-pass TF32, in blocks of :func:`cell_block` on a grid of row and
+    unit blocks (:func:`cell_grid`), W read as stored (:func:`cell_k_steps`,
+    :func:`cell_w_columns`); any D_in and hidden. No backward, as the TPU
+    kernel has none: an input that requires grad raises on both devices."""
     h, c = state
     if x.dim() != 2 or h.dim() != 2 or min(*x.shape, *h.shape) < 1:
         raise ValueError(f"expected x (B, D) and h, c (B, H), got {tuple(x.shape)} and {tuple(h.shape)}")
@@ -1029,19 +1076,19 @@ def fused_lstm_cell(params: LSTMParams, x: torch.Tensor, state):
     _check_tensors([(x, (batch, d_in)), (h, (batch, hidden)), (c, (batch, hidden)),
                     (params.w, (d_in + hidden, 4 * hidden)), (params.b, (4 * hidden,))], x.device)
     bf16 = dtype == torch.bfloat16
-    # the kernels read c, W and b as 16-byte vectors (the bf16 one c and b as
-    # pairs), x and h by element (the bf16 one in 16-byte pieces where they
-    # are aligned)
+    # the kernel reads W in 16-byte pieces, c and b as pairs; x and h in
+    # 16-byte pieces where they are aligned, else by element
     if not _on_card(x, [c, params.w, params.b], "fused_lstm_cell"):
         return lstm_cell(params, x, state)
-    rows = cell_tc_rows(d_in, hidden) if bf16 else kernel_rows(hidden, 1, d_in)
+    geo = cell_block(d_in, hidden, bf16)
+    grid_x = cell_grid(geo, batch, hidden, _build.sm_count(x.device))
     # h and c out in one allocation (the cell is launched once a step: its
     # host work is most of a call at serving batches)
     h_out, c_out = torch.empty((2, batch, hidden), device=x.device, dtype=dtype).unbind()
     with _on_device(x.device):
         err = _library().lstm_cell_launch(
             x.data_ptr(), h.data_ptr(), c.data_ptr(), params.w.data_ptr(), params.b.data_ptr(),
-            h_out.data_ptr(), c_out.data_ptr(), batch, d_in, hidden, rows,
+            h_out.data_ptr(), c_out.data_ptr(), batch, d_in, hidden, geo.rows, geo.units, int(geo.w_res), grid_x,
             int(bf16), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "fused_lstm_cell")
@@ -1108,12 +1155,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.peer_context_smem_bytes.restype = ctypes.c_longlong
     lib.fused_encode_smem_bytes.argtypes = [i32] * 7
     lib.fused_encode_smem_bytes.restype = ctypes.c_longlong
-    lib.lstm_cell_launch.argtypes = [vp] * 7 + [i32] * 5 + [vp]
+    lib.lstm_cell_launch.argtypes = [vp] * 7 + [i32] * 8 + [vp]
     for f in (lib.fused_serve_launch, lib.fused_encode_launch, lib.peer_context_launch, lib.fused_decode_f32,
               lib.lstm_cell_launch):
         f.restype = i32
-    lib.lstm_cell_smem_bytes.argtypes = [i32, i32]
-    lib.lstm_cell_smem_bytes.restype = i32
+    lib.lstm_cell_block.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_longlong)]
+    lib.lstm_cell_block.restype = None
     lib.fused_serve_error_string.argtypes = [i32]
     lib.fused_serve_error_string.restype = ctypes.c_char_p
     lib.fused_serve_probe_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]

@@ -61,7 +61,6 @@ from .lstm_train import (
     _check_pack_layer,
     _dw_reference as _lstm_dw_reference,
     _pack_reference,
-    _n_sm,
     _no_tf32,
     _ptrs,
     check_compute,
@@ -414,7 +413,7 @@ def launch_peer_bwd(lib, peer_params: LSTMParams, pxs, pwt, php, pcp, dctx, comp
     dev, wp = pxs.device, peer_params.w.contiguous()
     rbf, cbf = int(php.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16)
     fits = [w for w in range(4, 9) if 0 < lib.peer_bwd_smem(c_dim, w, rbf, cbf) <= _SMEM_LIMIT]
-    warps = peer_bwd_warps(rows, c_dim, d, fits, _n_sm(dev))
+    warps = peer_bwd_warps(rows, c_dim, d, fits, _build.sm_count(dev))
     wstream = torch.empty(lib.peer_bwd_stream_bytes(c_dim, cbf), dtype=torch.uint8, device=dev)
     dpgates = torch.empty((rows, t_len, 4 * c_dim), device=dev)
     dpxs = torch.empty((rows, t_len, d), device=dev)
@@ -464,7 +463,7 @@ def dec_dw(params: Sequence[LSTMParams], h0, y0, teacher_tm, coins, pwt, php, ys
                              compute_dtype)
     if batch * t_len >= 2**31:
         raise ValueError(f"B·T = {batch * t_len} rows do not fit the kernel's 32-bit row index")
-    splits = dw_splits(batch, t_len, hidden, d + c_dim, _n_sm(dev))
+    splits = dw_splits(batch, t_len, hidden, d + c_dim, _build.sm_count(dev))
     ins = [d + c_dim] + [hidden] * (layers - 1)
     ins = ins if pack_layer is None else [ins[pack_layer]]
     zpack = torch.empty((batch * t_len, max(dw_zld(i, hidden) for i in ins)), dtype=compute_dtype, device=dev)
@@ -511,7 +510,7 @@ def peer_dw(peer_params: LSTMParams, pxs, php, dpgates, compute_dtype=torch.floa
             return _pack_reference(pxs, zero, Residuals([php], [], []), 0, d, compute_dtype)
         return _peer_dw_reference(peer_params, pxs, php, dpgates, compute_dtype)
     dev = pxs.device
-    splits = dw_splits(rows, t_len, c_dim, d, _n_sm(dev))
+    splits = dw_splits(rows, t_len, c_dim, d, _build.sm_count(dev))
     zero = torch.zeros((rows, c_dim), device=dev)
     zpack = torch.empty((rows * t_len, dw_zld(d, c_dim)), dtype=compute_dtype, device=dev)
     partial = torch.empty((splits, d + c_dim + 1, 4 * c_dim), device=dev)

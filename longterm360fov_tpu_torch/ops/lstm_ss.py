@@ -66,7 +66,6 @@ from .lstm_train import (
     _check_pack_layer,
     _dw_reference as _lstm_dw_reference,
     _pack_reference,
-    _n_sm,
     _no_tf32,
     _ptrs,
     check_compute,
@@ -598,7 +597,7 @@ def ss_dw(
                              compute_dtype)
     if batch * t_len >= 2**31:
         raise ValueError(f"B·T = {batch * t_len} rows do not fit the kernel's 32-bit row index")
-    splits = dw_splits(batch, t_len, hidden, d + ctx_dim, _n_sm(dev))
+    splits = dw_splits(batch, t_len, hidden, d + ctx_dim, _build.sm_count(dev))
     ins = [d + ctx_dim] + [hidden] * (layers - 1)
     ins = ins if pack_layer is None else [ins[pack_layer]]
     zpack = torch.empty((batch * t_len, max(dw_zld(i, hidden) for i in ins)), dtype=compute_dtype, device=dev)
@@ -644,7 +643,7 @@ def ss_dproj(hs_top: torch.Tensor, dy: torch.Tensor,
     if dy.device.type == "cpu":
         return _dproj_reference(hs_top, dy, compute_dtype)
     dev = dy.device
-    splits = dproj_splits(batch * t_len, d, hidden, hs_top.dtype, _n_sm(dev))
+    splits = dproj_splits(batch * t_len, d, hidden, hs_top.dtype, _build.sm_count(dev))
     out = (hidden + 1) * d
     buf = torch.empty(((splits + 1) * out,), device=dev)  # dproj_w, dproj_b, then the slices' sums
     dpw, dpb = buf[: hidden * d].view(hidden, d), buf[hidden * d: out]

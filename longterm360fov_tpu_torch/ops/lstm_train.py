@@ -468,11 +468,6 @@ def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
-@functools.cache
-def _n_sm(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _raise_on(err: int, name: str):
     if err:
         raise RuntimeError(
@@ -634,7 +629,7 @@ def lstm_dw(
     if batch * t_len >= 2**31:
         raise ValueError(f"B·T = {batch * t_len} rows do not fit the kernel's 32-bit row index")
     dev = xs.device
-    splits = dw_splits(batch, t_len, hidden, d, _n_sm(dev))
+    splits = dw_splits(batch, t_len, hidden, d, _build.sm_count(dev))
     ins = [d] + [hidden] * (layers - 1) if pack_layer is None else [d if pack_layer == 0 else hidden]
     zpack = torch.empty((batch * t_len, max(dw_zld(i, hidden) for i in ins)), dtype=compute_dtype, device=dev)
     rows_max = max(d + hidden, 2 * hidden if layers > 1 else 0)  # in_l + H

@@ -55,7 +55,6 @@ from ..models import transformer
 from ..params import tree_leaves
 from . import _build
 from .fused_lstm import _no_tf32
-from .lstm_train import _n_sm
 from .transformer_encode import (HIDDEN, MAX_LAYERS, check_card_tensors, check_tier, layer_pointers, refuse_grad,
                                  stored_matrix)
 
@@ -251,7 +250,7 @@ def fused_ar_decode(params, cfg, enc_mem: torch.Tensor, y0: torch.Tensor, *, pee
     out = torch.empty((batch, t_out, d), device=dev, dtype=torch.float32)
     seg = kt if cfg.peer_pool == "mean" else t_out
     lib = _library()
-    rows = decode_rows(batch, _n_sm(dev))
+    rows = decode_rows(batch, _build.sm_count(dev))
     decode_smem_bytes(rows, compute_dtype)
     args = [y0.data_ptr(), peer_valid.data_ptr() if kt else None, None if gid is None else gid.data_ptr(),
             None if peer_dv is None else peer_dv.data_ptr(), self_kv.data_ptr(), out.data_ptr(),

@@ -14,7 +14,9 @@ Run from the root of a checkout: ``python3 scripts/torch_align_train_probe.py``.
 ``--checkout DIR`` imports the port (and its ``chip_smoke.py``) from another
 checkout instead, such as an unpacked older commit; ``--self-only`` then
 skips what that checkout may lack (the SASS report and the probe build);
-``--skip-checks`` skips 2.; ``--widths`` only times the widths and depths
+``--skip-checks`` skips 2.; ``--widths-plain`` only times the backwards at
+hidden 256 and 8 layers beside their plain versions and cuDNN's backward
+data; ``--widths`` only times the widths and depths
 (the end of 3.); ``--steps`` only times the train steps (5.). One
 process a checkout, so that a call can run parent, change, change, parent.
 Prints, on the card it finds (it fails without one):
@@ -231,6 +233,8 @@ def main():
     ap.add_argument("--self-only", action="store_true", help="skip the SASS report and the probe build")
     ap.add_argument("--skip-checks", action="store_true", help="skip the checks against the plain versions")
     ap.add_argument("--widths", action="store_true", help="only time the widths and depths")
+    ap.add_argument("--widths-plain", action="store_true",
+                    help="only the widest and deepest backwards beside their plain versions and cuDNN")
     ap.add_argument("--steps", action="store_true", help="only time the train steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -248,6 +252,8 @@ def main():
         return time_steps(chip_smoke, dev, smi)
     if args.widths:
         return time_widths(chip_smoke, dev, smi, lstm_train, lstm_ss)
+    if args.widths_plain:
+        return time_widths_plain(chip_smoke, dev, smi, lstm_train, lstm_ss)
     with ThreadPoolExecutor(max_workers=8) as pool:  # one nvcc each, started together
         jobs = {name: pool.submit(_build.build, name) for name in ("lstm_ss", "lstm_align", "fused_serve",
                                                                     "lstm_train")}
@@ -437,6 +443,38 @@ def time_widths(chip_smoke, dev, smi, lstm_train, lstm_ss):
         print(f"the widths and depths taken again, alone at B={B} (ms a call, CUDA events, in turns; row 5 on f32 "
               f"residuals, the decoder on bf16; {smi}): {json.dumps(ms)}; their bounds (ms, by): "
               f"{json.dumps(bounds)}", flush=True)
+
+
+def time_widths_plain(chip_smoke, dev, smi, lstm_train, lstm_ss):
+    """The backward recurrences at hidden 256 (L = 2) and 8 layers (H =
+    128), B = 4096, alone in turns beside their plain versions (the
+    products in the same compute type) and, for row 5 (T = 100, f32
+    residuals), cuDNN's backward data in f32; row 6 (T = 30, C = 128, bf16
+    residuals) has no library call (its feedback)."""
+    B = chip_smoke.TRAIN_B
+    for h, layers in ((256, 2), (128, 8)):
+        ps5, (xs, h0, c0), up = chip_smoke.lstm_case(dev, B, layers, seed=h + layers, t=100, h=h)
+        ps6, a6 = chip_smoke.ss_case(dev, B, layers, 128, "bernoulli", seed=h + layers, h=h)
+        res5 = lstm_train.lstm_fwd(ps5, xs, h0, c0, F32)
+        res6 = lstm_ss.ss_fwd(*chip_smoke.ss_fwd_args(ps6, a6), BF)[1]
+        b6 = (ps6, a6["proj_w"], a6["c0"], a6["coins"], res6, a6["dys"], 128)
+        net = chip_smoke.cudnn_lstm(ps5, 3, dev, training=True)
+        x_g = xs.clone().requires_grad_(True)
+        h0_g, c0_g = h0.clone().requires_grad_(True), c0.clone().requires_grad_(True)
+        y, (hn, cn) = net(x_g, (h0_g, c0_g))
+        calls = {"row 5 cudnn_bwd_data f32": lambda: torch.autograd.grad((y, hn, cn), (x_g, h0_g, c0_g), up,
+                                                                         retain_graph=True)}
+        for cd in (F32, BF):
+            n = str(cd)[6:]
+            calls[f"row 5 kernel {n}"] = lambda cd=cd: lstm_train.lstm_bwd(ps5, c0, res5, *up, compute_dtype=cd)
+            calls[f"row 5 plain {n}"] = lambda cd=cd: lstm_train._bwd_recurrence_reference(ps5, c0, res5, *up, cd)
+            calls[f"row 6 kernel {n}"] = lambda cd=cd: lstm_ss.ss_bwd(*b6, cd)
+            calls[f"row 6 plain {n}"] = lambda cd=cd: lstm_ss._bwd_recurrence_reference(*b6, compute_dtype=cd)
+        ms = chip_smoke.in_turns(calls, {k: 1 if "plain" in k else 3 for k in calls})
+        print(f"backward recurrences at H={h} L={layers}, B={B} (row 5 T=100 f32 residuals, row 6 T=30 C=128 bf16 "
+              f"residuals; ms a call, CUDA events, in turns; {smi}): {json.dumps(ms)}", flush=True)
+        del calls, res5, res6, b6, net, y, hn, cn
+        torch.cuda.empty_cache()
 
 
 def time_steps(chip_smoke, dev, smi):

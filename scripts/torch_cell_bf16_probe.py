@@ -22,8 +22,9 @@ Prints, on the card it finds (it fails without one):
    (``torch.profiler``) and the host's time to issue one.
 
 ``--f32`` prints only the f32 cell (row 2) and ``torch.lstm_cell`` on f32
-tensors at B = 16384, D_in = 3 and 128, in turns, with the host's time a
-call; ``--checkout DIR`` imports the port (and its ``chip_smoke.py``) from
+tensors at B = 16384 (D_in = 3 and 128) and 262,144 (D_in = 3), in turns,
+with the host's time a call, and ``seq2seq-tf-30``'s ``cell="pallas"`` and
+``decode_fused`` calls at B = 16384 and 262,144; ``--checkout DIR`` imports the port (and its ``chip_smoke.py``) from
 another checkout, such as an unpacked older commit, so that one call can
 time both, one process a checkout (parent, change, change, parent): the
 design before the tensor cores is an older checkout's.
@@ -57,22 +58,39 @@ def host_us(fn, calls=200):
 
 
 def time_f32(cs, fused_lstm, LSTMParams, dev, smi, checkout):
-    """The f32 cell and torch.lstm_cell at the serve path's shapes, in turns."""
-    for d_in in (3, 128):
+    """The f32 cell and torch.lstm_cell at the serve path's shapes (B =
+    16384 at D_in = 3 and 128, 262,144 at 3), in turns; then the
+    seq2seq-tf-30 calls on the cell at B = 16384 and 262,144: cell="pallas"
+    (60 cell launches) and decode_fused (30 and one fused_decode)."""
+    from longterm360fov_tpu_torch import infer, oracle
+    from longterm360fov_tpu_torch.params import params_from_numpy
+
+    for batch, d_in in ((16384, 3), (16384, 128), (262144, 3)):
         rng = np.random.default_rng(12 + d_in)
         (p,) = cs.stack(rng, dev, d_in, 1)
-        x, h, c = cs.randn(rng, dev, (16384, d_in)), cs.randn(rng, dev, (16384, 128), 0.5), cs.randn(
-            rng, dev, (16384, 128), 0.5)
+        x, h, c = cs.randn(rng, dev, (batch, d_in)), cs.randn(rng, dev, (batch, 128), 0.5), cs.randn(
+            rng, dev, (batch, 128), 0.5)
         w_ih, w_hh = p.w[:d_in].t().contiguous(), p.w[d_in:].t().contiguous()
         b_hh = torch.zeros_like(p.b)
         fns = {"kernel": lambda: fused_lstm.fused_lstm_cell(p, x, (h, c)),
                "torch.lstm_cell": lambda: torch.lstm_cell(x, [h, c], w_ih, w_hh, p.b, b_hh)}
         with torch.inference_mode():
-            ms = cs.in_turns(fns, dict.fromkeys(fns, 50))
+            ms = cs.in_turns(fns, dict.fromkeys(fns, 50 if batch == 16384 else 5))
             host = {k: host_us(f) for k, f in fns.items()}
-        print(f"f32 cell (port from {checkout}), B=16384, D_in={d_in}, H=128: a call as the serve path makes it (ms, "
-              f"CUDA events, in turns; {smi}): {json.dumps(ms)}; host time a call (µs): {json.dumps(host)}",
+        print(f"f32 cell (port from {checkout}), B={batch}, D_in={d_in}, H=128: a call as the serve path makes it "
+              f"(ms, CUDA events, in turns; {smi}): {json.dumps(ms)}; host time a call (µs): {json.dumps(host)}",
               flush=True)
+    cfg = cs.cell_cfg()
+    params = params_from_numpy(oracle.init_params_np(0, cfg.model), dev)
+    for batch in (16384, 262144):
+        past = cs.unit_rows(np.random.default_rng(13), dev, (batch, cfg.model.h_in))
+        calls = {"cell=pallas": infer.make_predict_fn(params, cfg, device=dev, impl="plain"),
+                 "decode_fused": cs.decode_fused_path(params, cfg)}
+        with torch.inference_mode():
+            ms = cs.in_turns({k: (lambda f=f: f(past)) for k, f in calls.items()},
+                             dict.fromkeys(calls, 5 if batch == 16384 else 2))
+        print(f"seq2seq-tf-30 calls on the f32 cell (port from {checkout}), B={batch} (ms, CUDA events, in turns; "
+              f"{smi}): {json.dumps(ms)}", flush=True)
 
 
 def main():

@@ -195,7 +195,7 @@ def main():
             fns = {r if r else "kernel": (lambda r=r: call("kernels", m, params, enc, y0, peers, r))
                    for r in block_rows}
             ms = cs.in_turns(fns, dict.fromkeys(fns, 1 if "65536" in label else 2))
-            chosen = "" if args.self_only else f" (the chooser's rows: {td.decode_rows(enc.shape[0], td._n_sm(dev))})"
+            chosen = "" if args.self_only else f" (the chooser's rows: {td.decode_rows(enc.shape[0], _build.sm_count(dev))})"
             print(f"{label}: a call (ms, CUDA events, in turns; {smi}){chosen}: {json.dumps(ms)}", flush=True)
         if args.self_only:
             return
@@ -209,7 +209,7 @@ def main():
             ms = cs.cuda_ms(lambda: call("probe", m, params, enc, y0, peers), 1)
             lib.transformer_decode_probe_read(buf)
             total = sum(buf)
-            blocks = 2 * -(-enc.shape[0] // td.decode_rows(enc.shape[0], td._n_sm(dev)))  # two calls counted
+            blocks = 2 * -(-enc.shape[0] // td.decode_rows(enc.shape[0], _build.sm_count(dev)))  # two calls counted
             split = {"ms": round(ms, 3), "clocks a block": round(total / blocks),
                      **{part: round(v / total, 4) for part, v in zip(PARTS, buf) if v}}
             print(f"{label}: time split of the probe build (thread 0's clock64 a part, summed over the blocks; "

@@ -30,10 +30,19 @@ FULL_PAIRS = [(16, 48), (32, 96), (32, 960), (64, 1920), (16, 64), (32, 128), (1
               (32, 20), (32, 961), (64, 1917)]
 
 
-def _case(shape, c, seed):
+# odd K other than the main path's 3, scaled down from the card tests'
+# CONV_SHAPES: (B, H, W) → (h, w), C, K
+ODD_K = [
+    ((3, 48, 96), (16, 32), 4, 5),
+    ((2, 20, 40), (12, 18), 3, 7),
+    ((5, 12, 20), (16, 32), 4, 1),
+]
+
+
+def _case(shape, c, seed, k=3):
     rng = np.random.default_rng(seed)
     frames = rng.normal(size=shape).astype(np.float32)
-    kernels = rng.normal(size=(c, 3, 3)).astype(np.float32)
+    kernels = rng.normal(size=(c, k, k)).astype(np.float32)
     bias = rng.normal(size=(c,)).astype(np.float32)
     return frames, kernels, bias
 
@@ -63,6 +72,19 @@ def test_plain_version_matches_jax(shape, out_hw, c):
     against JAX's kernel in interpret mode (tests/test_features.py's
     bound)."""
     frames, kernels, bias = _case(shape, c, seed=c)
+    ours = CR.conv_resize_reference(torch.from_numpy(frames), out_hw, torch.from_numpy(kernels),
+                                    torch.from_numpy(bias)).numpy()
+    j_in = (jnp.asarray(frames), out_hw, jnp.asarray(kernels), jnp.asarray(bias))
+    assert ours.shape == (shape[0], c) + out_hw
+    np.testing.assert_allclose(ours, np.asarray(JCR.conv_resize_reference(*j_in)), atol=1e-5)
+    np.testing.assert_allclose(ours, np.asarray(JCR.fused_conv_resize(*j_in)), atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,out_hw,c,k", ODD_K)
+def test_plain_version_matches_jax_at_odd_k(shape, out_hw, c, k):
+    """The same bounds as at K = 3, for the kernel's body that takes any
+    odd K: its K // 2 halo on each side is JAX's "SAME" padding."""
+    frames, kernels, bias = _case(shape, c, seed=c + k, k=k)
     ours = CR.conv_resize_reference(torch.from_numpy(frames), out_hw, torch.from_numpy(kernels),
                                     torch.from_numpy(bias)).numpy()
     j_in = (jnp.asarray(frames), out_hw, jnp.asarray(kernels), jnp.asarray(bias))
@@ -138,8 +160,40 @@ def test_bad_inputs_raise(bad):
 
 
 def test_tile_rows_fit_a_block():
-    assert CR.tile_rows(32, 64, 8, 3) == 8 and CR.tile_rows(4, 8, 4, 3) == 4
-    rows = CR.tile_rows(32, 2000, 8, 3)
-    assert 1 <= rows < 8 and 4 * (8 * 10 + (rows + 2) * 2002) <= 48 * 1024
-    with pytest.raises(ValueError, match="does not fit"):
-        CR.tile_rows(32, 20000, 8, 3)
+    """conv_tile: whole frames where the frames alone make two blocks an SM
+    (a clip, the maps mode), else bands of 8 rows (64 frames: 256 blocks);
+    rows in tiles of up to 256 columns, a multiple of 4; wide rows past the
+    old 48 KB cap taken; a filter bank past shared memory refused, naming
+    the shape."""
+    assert CR.conv_tile(1200, 32, 64, 8, 3) == (32, 64, CR.conv_smem(32, 64, 8, 3))
+    assert CR.conv_tile(4099, 16, 32, 4, 3)[:2] == (16, 32)
+    assert CR.conv_tile(64, 32, 64, 8, 3)[:2] == (8, 64)
+    assert CR.conv_tile(3, 4, 8, 4, 3)[:2] == (4, 8)
+    for w in (2000, 15000, 20000, 100003):  # one output row past 48 KB from 12,000 columns
+        t = CR.conv_tile(2, 32, w, 8, 3)
+        assert t.cols == 256 and t.smem <= 232448
+        assert t.rows == (32 if 2 * -(-w // 256) >= 2 * 132 else 8)
+    assert CR.conv_tile(2, 40, 30, 3, 3).cols == 32
+    assert CR.conv_smem(32, 64, 8, 3) == 4 * ((8 * 10 + 4 * 34 + 4 * 66 + 3) // 4 * 4 + 34 * 68)
+    with pytest.raises(ValueError, match=r"out_hw=\(32, 64\), C=6000, K=3: .* does not fit"):
+        CR.conv_tile(2, 32, 64, 6000, 3)
+
+
+@pytest.mark.parametrize("batch,h,w,c,k,rows,cols,col_tiles", [
+    (64, 32, 64, 8, 5, 8, 64, 1),
+    (64, 32, 64, 8, 7, 8, 64, 1),
+    (3, 20, 530, 3, 5, 8, 256, 3),  # a ragged last tile of 18 columns
+    (5, 18, 1030, 4, 7, 8, 256, 5),  # of 6 columns
+    (2, 12, 20000, 4, 7, 8, 256, 79),  # 158 column tiles: bands of 8 rows
+    (300, 24, 40, 4, 5, 24, 40, 1),
+    (5, 16, 32, 4, 1, 8, 32, 1),
+])
+def test_tile_at_odd_k(batch, h, w, c, k, rows, cols, col_tiles):
+    """conv_tile at the card tests' odd-K shapes: the halo of K // 2 on each
+    side in the shared memory it counts (the kernel's small_ld: rows padded
+    to whole 16 bytes), the column tiles over the row with a ragged last."""
+    t = CR.conv_tile(batch, h, w, c, k)
+    pad = k // 2
+    head = -(-(c * (k * k + 1) + 4 * (t.rows + 2 * pad) + 4 * (t.cols + 2 * pad)) // 4) * 4
+    assert (t.rows, t.cols) == (rows, cols) and -(-w // t.cols) == col_tiles
+    assert t.smem == 4 * (head + (t.rows + 2 * pad) * -(-(t.cols + 2 * pad) // 4) * 4) <= 232448

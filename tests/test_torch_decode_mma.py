@@ -104,56 +104,106 @@ def test_stream_chunks_follow_the_layers_products(peers):
     assert next(it, None) is None
 
 
-@pytest.mark.parametrize("hidden,rows", [(16, 512), (32, 256), (48, 160), (64, 128), (96, 64), (128, 64),
-                                         (160, 32), (192, 32), (256, 32)])
-def test_cell_tc_rows(hidden, rows):
-    """Warp tiles of 32 rows x 16 units, at most one for each of the 16
-    warps, as many as fit: all 16 where hidden divides 256 (rows x hidden =
-    8192), 12 at hidden 96 (the peer encoder's C = 96)."""
-    assert fused_lstm.cell_tc_rows(3, hidden) == rows
-    tiles = (rows // 32) * (hidden // 16)
-    assert tiles <= 16 < tiles + hidden // 16
-    assert tiles == 16 or 256 % hidden
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("hidden", [1, 8, 40, 100, 128, 256, 272, 512, 1024])
+@pytest.mark.parametrize("d_in", [3, 128, 1024])
+def test_cell_tc_rows(d_in, hidden, bf16):
+    """The cell's block (cell_block) in both tiers: W's columns of the block
+    resident in the first candidate block of 16 warps whose shared memory
+    holds them (f32: 64 rows x 64 units, then 128 x 32; bf16: 128 x 64),
+    units no more than hidden rounded up to whole warp tiles (32 rows x 8
+    units in f32, x 16 in bf16); else 128-row blocks of 32 (f32) or 64
+    (bf16) units that stream W beside z; their unit blocks cover H."""
+    g = fused_lstm.cell_block(d_in, hidden, bf16)
+    tile = 16 if bf16 else 8
+    whole = -(-hidden // tile) * tile
+    cands = [(128, 64)] if bf16 else [(64, 64), (128, 32)]
+    fits = [f for f in (fused_lstm.cell_geom(r, min(u, whole), True, d_in, hidden, bf16) for r, u in cands)
+            if f.smem <= 232448]
+    assert g == (fits[0] if fits else fused_lstm.cell_geom(128, min(64 if bf16 else 32, whole), False, d_in,
+                                                           hidden, bf16))
+    assert g.units % tile == 0 and g.units <= whole and g.warps == g.rows // 32 * (g.units // tile) <= 16
+    assert g.smem <= 232448 and -(-hidden // g.units) * g.units - hidden < g.units
+    assert fused_lstm.cell_block(3, 128, False) == (64, 64, 16, True, 205824)
+    assert fused_lstm.cell_block(128, 128, False) == (128, 32, 16, True, 212992)
+    assert fused_lstm.cell_block(1024, 128, False) == (128, 32, 16, False, 143360)
+    assert fused_lstm.cell_block(3, 128, True) == (128, 64, 16, True, 125440)
+    assert fused_lstm.cell_block(128, 128, True) == (128, 64, 16, True, 176128)
+
+
+@pytest.mark.parametrize("batch,hidden,bf16,want", [(16384, 128, False, 66), (16384, 128, True, 66), (100, 128, False, 2),
+                                                    (262144, 1024, False, 2048), (16384, 40, False, 132)])
+def test_cell_grid_fills_the_sms(batch, hidden, bf16, want):
+    """Blocks along the batch (cell_grid): with W resident, one 16-warp block
+    an SM for each unit block (132 SMs), no more than the row tiles; W
+    streamed, every row tile its own block."""
+    geo = fused_lstm.cell_block(3, hidden, bf16)
+    assert fused_lstm.cell_grid(geo, batch, hidden, 132) == want
 
 
 def test_cell_tc_rows_refuses_what_it_does_not_take():
-    for hidden in (8, 40, 100, 272, 512, 1024):
-        with pytest.raises(ValueError, match=f"hidden={hidden}"):
-            fused_lstm.cell_tc_rows(3, hidden)
-    with pytest.raises(ValueError, match="D_in=2000, hidden=128"):
-        fused_lstm.cell_tc_rows(2000, 128)
-    assert fused_lstm.cell_tc_rows(640, 128) == 64  # the widest x beside the ring at H = 128
-    with pytest.raises(ValueError, match="D_in=641, hidden=128"):
-        fused_lstm.cell_tc_rows(641, 128)
+    """What the tensor-core cell refused before its unit-block grid (bf16:
+    hidden not a multiple of 16 or past 256, and x past shared memory
+    beside the ring: D_in 641 and 2000 at H = 128) is taken in both tiers;
+    an empty shape, and a hidden past the grid's 65,535 unit blocks, are
+    still refused, the shape named."""
+    for bf16 in (False, True):
+        for hidden in (8, 40, 100, 272, 512, 1024):
+            assert fused_lstm.cell_block(3, hidden, bf16).smem <= 232448
+        for d_in in (640, 641, 2000):
+            assert fused_lstm.cell_block(d_in, 128, bf16).smem <= 232448
+        with pytest.raises(ValueError, match="D_in=3, hidden=0"):
+            fused_lstm.cell_block(3, 0, bf16)
+        with pytest.raises(ValueError, match="D_in=0, hidden=128"):
+            fused_lstm.cell_block(0, 128, bf16)
+        units = fused_lstm.cell_block(3, 10 ** 6, bf16).units
+        with pytest.raises(ValueError, match=f"hidden={65535 * units + 1}"):
+            fused_lstm.cell_block(3, 65535 * units + 1, bf16)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("d_in,hidden", [(3, 128), (16, 32), (128, 128), (131, 64), (1, 256), (3, 96),
-                                         (5, 160)])
-def test_cell_ring_over_w_as_stored_is_the_gate_product(d_in, hidden):
-    """The ring's k16 steps over W as stored (cell_w_steps), the stage rows
-    past D_in zero, against z = [x padded to a k16 step | h] in bf16: the
-    product step by step equals [x, h] @ W with both operands rounded to
-    bf16 and f32 sums (in another order: 1e-5); every row of W is in
-    exactly one step."""
+                                         (5, 160), (3, 40), (7, 100), (2, 272), (3, 1)])
+def test_cell_ring_over_w_as_stored_is_the_gate_product(d_in, hidden, bf16):
+    """The ring over z and W as stored, rebuilt on the CPU: for each unit
+    block, its chunks of the k-steps (cell_k_steps: 4 k8 steps a chunk in
+    f32, 2 k16 in bf16), z's columns and W's rows past D_in or H zeros,
+    and its stage's W columns (cell_w_columns, zeros past H); the stage
+    products summed over the chunks and put back at their gate columns equal
+    [x, h] @ W with the operands in the tier's type and f32 sums (in another
+    order: 1e-5); every row of W is in exactly one step, every column of W
+    in exactly one unit block."""
     rng = np.random.default_rng(d_in + hidden)
-    bf = torch.bfloat16
+    dt = torch.bfloat16 if bf16 else torch.float32
     rows = 37
     w = torch.tensor(rng.normal(size=(d_in + hidden, 4 * hidden)).astype(np.float32) * 0.2)
     x = torch.tensor(rng.normal(size=(rows, d_in)).astype(np.float32))
     h = torch.tensor(rng.uniform(-1, 1, size=(rows, hidden)).astype(np.float32))
-    kx = -(-d_in // 16) * 16
-    z = torch.cat([round_to(x, bf), torch.zeros(rows, kx - d_in), round_to(h, bf)], dim=1)
-    steps = fused_lstm.cell_w_steps(d_in, hidden)
-    assert len(steps) == (kx + hidden) // 16
-    seen = torch.zeros(d_in + hidden, dtype=torch.int64)
-    acc = torch.zeros(rows, 4 * hidden)
-    for k0, valid, zc in steps:
-        stage = torch.zeros(16, 4 * hidden)
-        stage[:valid] = round_to(w[k0:k0 + valid], bf)
-        seen[k0:k0 + valid] += 1
-        acc += z[:, zc:zc + 16] @ stage
-    assert torch.equal(seen, torch.ones_like(seen))
-    torch.testing.assert_close(acc, mm(torch.cat([x, h], dim=1), w, bf), rtol=1e-5, atol=1e-5)
+    xr, hr, wr = round_to(x, dt), round_to(h, dt), round_to(w, dt)
+    geo = fused_lstm.cell_block(d_in, hidden, bf16)
+    ks = 16 if bf16 else 8
+    steps = fused_lstm.cell_k_steps(d_in, hidden, bf16)
+    assert len(steps) == -(-d_in // ks) + -(-hidden // ks)
+    seen_rows = torch.zeros(d_in + hidden, dtype=torch.int64)
+    seen_cols = torch.zeros(4 * hidden, dtype=torch.int64)
+    gates = torch.zeros(rows, 4 * hidden)
+    for blk in range(-(-hidden // geo.units)):
+        cols = fused_lstm.cell_w_columns(hidden, geo.units, blk)
+        assert cols.shape == (4 * geo.units,)
+        live = cols >= 0
+        seen_cols[cols[live]] += 1
+        acc = torch.zeros(rows, 4 * geo.units)
+        for c0 in range(0, len(steps), 32 // ks):  # the ring's chunks of 32 k-rows
+            zst, wst = torch.zeros(rows, 32), torch.zeros(32, 4 * geo.units)
+            for i, (part, col, valid, k0) in enumerate(steps[c0:c0 + 32 // ks]):
+                zst[:, ks * i:ks * i + valid] = (xr if part == "x" else hr)[:, col:col + valid]
+                wst[ks * i:ks * i + valid, live] = wr[k0:k0 + valid][:, cols[live]]
+                if blk == 0:
+                    seen_rows[k0:k0 + valid] += 1
+            acc += zst @ wst
+        gates[:, cols[live]] = acc[:, live]
+    assert torch.equal(seen_rows, torch.ones_like(seen_rows)) and torch.equal(seen_cols, torch.ones_like(seen_cols))
+    torch.testing.assert_close(gates, mm(torch.cat([x, h], dim=1), w, dt), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("peers", [True, False])

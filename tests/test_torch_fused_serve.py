@@ -103,14 +103,17 @@ def test_rejects_what_the_kernel_does_not_take():
 
 
 def test_kernel_rows():
-    assert fused_lstm.kernel_rows(128, 1, 3) == 64  # 256 threads
-    assert fused_lstm.kernel_rows(128, 3, 3) == 64  # 197,376 B of smem
-    assert fused_lstm.kernel_rows(128, 4, 3) == 32  # 64 rows would not fit
-    assert fused_lstm.kernel_rows(256, 2, 3) == 32
-    assert fused_lstm.kernel_rows(32, 1, 3) == 64
-    for hidden, layers in ((48, 1), (16, 1), (128, 0), (128, 9)):
-        with pytest.raises(ValueError):
-            fused_lstm.kernel_rows(hidden, layers, 3)
+    """The f32 cell's rows a block (cell_block; the FMA body's kernel_rows
+    it replaced took only hidden % 32 == 0): 64 rows of 64 units with W
+    resident at seq2seq-tf-30's layer-0 step, 128 of 32 at D_in = 128, 128
+    of 32 with W streamed past shared memory, on 16 warps; the hidden the
+    FMA body refused taken."""
+    assert fused_lstm.cell_block(3, 128, False)[:4] == (64, 64, 16, True)
+    assert fused_lstm.cell_block(128, 128, False)[:4] == (128, 32, 16, True)
+    assert fused_lstm.cell_block(3, 256, False)[:4] == (128, 32, 16, True)
+    assert fused_lstm.cell_block(3, 1024, False)[:4] == (128, 32, 16, False)
+    for hidden, units in ((48, 48), (16, 16), (1, 8)):
+        assert fused_lstm.cell_block(3, hidden, False)[:4] == (64, units, units // 4, True)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -432,22 +432,30 @@ def test_serve_context_and_encode_never_fall_back_on_card():
 @pytest.mark.parametrize("cd", COMPUTE)
 @pytest.mark.parametrize("d_in", [3, 128, 131])
 @pytest.mark.parametrize("batch", [1, 257, 16383])
-def test_lstm_cell_kernel_matches_plain(batch, d_in, cd):
+@pytest.mark.parametrize("hidden", [128, 40, 100, 272, 1024])
+def test_lstm_cell_kernel_matches_plain(hidden, batch, d_in, cd):
     """Every tensor in ``cd``; in bf16 (a --bf16 model's cell) h and c come
     back in bf16, against lstm_cell on the bf16 tensors and on their f32
-    widening."""
-    rng = np.random.default_rng(d_in)
-    (p,) = _stack(rng, d_in, 1)
+    widening. Both tiers on the tensor cores (f32 in three-pass TF32) at
+    every hidden: widths that are no whole warp tile (40, 100), past 256
+    (272, 1024: W streamed past shared memory); at hidden other than 128, x
+    and h one element past an aligned address; a repeat bit-equal."""
+    rng = np.random.default_rng(d_in + hidden)
+    (p,) = _stack(rng, d_in, 1, hidden=hidden)
     p = LSTMParams(p.w.to(cd), p.b.to(cd))
-    x, h, c = (_cuda(rng, shape, scale).to(cd) for shape, scale in (((batch, d_in), 1.0), ((batch, 128), 0.5),
-                                                                     ((batch, 128), 0.5)))
+    k = int(hidden != 128)
+    x = _cuda(rng, (batch * d_in + k,)).to(cd)[k:].view(batch, d_in)
+    h = _cuda(rng, (batch * hidden + k,), 0.5).to(cd)[k:].view(batch, hidden)
+    c = _cuda(rng, (batch, hidden), 0.5).to(cd)
     before = _counts([fused_lstm.fused_lstm_cell])
     got = fused_lstm.fused_lstm_cell(p, x, (h, c))
     torch.cuda.synchronize()
     assert _counts([fused_lstm.fused_lstm_cell]) == _one_more(before, cd)
-    assert all(g.shape == (batch, 128) and g.dtype == cd for g in got)
+    assert all(g.shape == (batch, hidden) and g.dtype == cd for g in got)
     _check(list(got), _plains(cd, lambda c_: list(lstm_cell(LSTMParams(p.w.to(c_), p.b.to(c_)), x.to(c_),
                                                           (h.to(c_), c.to(c_))))), "cell", cd)
+    again = fused_lstm.fused_lstm_cell(p, x, (h, c))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("layers,ctx_dim", [(1, 0), (2, 0), (2, 128), (3, 64)])
@@ -492,9 +500,12 @@ def test_cell_and_decode_never_fall_back_on_card():
         fused_lstm.fused_lstm_cell(p, x.detach().bfloat16(), (h, h))
     with pytest.raises(ValueError, match="aligned"):
         fused_lstm.fused_lstm_cell(p, x.detach(), (h, torch.empty(4 * 128 + 1, device="cuda")[1:].view(4, 128)))
-    with pytest.raises(ValueError, match="hidden % 32"):
-        (q,) = _stack(rng, 3, 1, hidden=48)
-        fused_lstm.fused_lstm_cell(q, x.detach(), (_cuda(rng, (4, 48)), _cuda(rng, (4, 48))))
+    # hidden 48, which the FMA design refused (hidden % 32), is taken
+    (q,) = _stack(rng, 3, 1, hidden=48)
+    h48, c48 = _cuda(rng, (4, 48)), _cuda(rng, (4, 48))
+    got = fused_lstm.fused_lstm_cell(q, x.detach(), (h48, c48))
+    want = lstm_cell(q, x.detach(), (h48, c48))
+    assert all((g - w).abs().max().item() <= 1e-5 for g, w in zip(got, want))
     dec = _stack(rng, 3, 1)
     h0 = _cuda(rng, (1, 4, 128))
     with pytest.raises(RuntimeError, match="no backward"):
@@ -1354,31 +1365,43 @@ def test_training_forwards_refuse_what_their_blocks_do_not_take():
 # a row where the einsum sums every term (the zeros exactly), and the K·K
 # taps in another order than cuDNN: a few ulps of values up to ~10.
 
+# (B, H, W) → (h, w), C, K: 3 x 3 filters (the main path's, on the
+# kernel's register window), then the body for any odd K
 CONV_SHAPES = [
-    ((3, 48, 96), (16, 32), 4),  # the JAX suite's shape
-    ((64, 960, 1920), (32, 64), 8),  # extract_clip_features' defaults
-    ((4099, 64, 128), (16, 32), 4),  # the fusion maps mode
-    ((5, 12, 20), (16, 32), 4),  # upsampling: two taps a row
-    ((7, 961, 1917), (32, 64), 8),  # odd sizes
-    ((2, 40, 2000), (20, 1500), 3),  # a wide output: fewer rows a block
+    ((3, 48, 96), (16, 32), 4, 3),  # the JAX suite's shape
+    ((64, 960, 1920), (32, 64), 8, 3),  # extract_clip_features' defaults
+    ((4099, 64, 128), (16, 32), 4, 3),  # the fusion maps mode
+    ((5, 12, 20), (16, 32), 4, 3),  # upsampling: two taps a row
+    ((7, 961, 1917), (32, 64), 8, 3),  # odd sizes
+    ((2, 40, 2000), (20, 1500), 3, 3),  # a wide output: tiles of 256 columns
+    ((2, 60, 30000), (12, 20000), 4, 3),  # rows of 80 KB, past the old design's 48 KB cap
+    ((64, 960, 1920), (32, 64), 8, 5),
+    ((64, 960, 1920), (32, 64), 8, 7),
+    ((3, 50, 700), (20, 530), 3, 5),  # a ragged last column tile: 530 = 2 x 256 + 18
+    ((5, 40, 2000), (18, 1030), 4, 7),  # 1030 = 4 x 256 + 6, scalar stores
+    ((2, 60, 30000), (12, 20000), 4, 7),
+    ((300, 40, 80), (24, 40), 4, 5),  # whole-frame tiles
+    ((5, 12, 20), (16, 32), 4, 1),  # K = 1: no halo
 ]
 
 
-def _conv_case(shape, c, seed):
+def _conv_case(shape, c, seed, k=3):
     rng = np.random.default_rng(seed)
-    return (_cuda(rng, shape), _cuda(rng, (c, 3, 3), 1 / 3), _cuda(rng, (c,), 0.1))
+    return (_cuda(rng, shape), _cuda(rng, (c, k, k), 1 / k), _cuda(rng, (c,), 0.1))
 
 
-@pytest.mark.parametrize("shape,out_hw,c", CONV_SHAPES)
-def test_conv_resize_kernel_matches_plain(shape, out_hw, c):
-    frames, kernels, bias = _conv_case(shape, c, seed=c)
+@pytest.mark.parametrize("shape,out_hw,c,k", CONV_SHAPES)
+def test_conv_resize_kernel_matches_plain(shape, out_hw, c, k):
+    frames, kernels, bias = _conv_case(shape, c, seed=c + k - 3, k=k)
     before = conv_resize.fused_conv_resize.launches
     out = conv_resize.fused_conv_resize(frames, out_hw, kernels, bias)
+    again = conv_resize.fused_conv_resize(frames, out_hw, kernels, bias)
     torch.cuda.synchronize()
-    assert conv_resize.fused_conv_resize.launches == before + 1
+    assert conv_resize.fused_conv_resize.launches == before + 2
     ref = conv_resize.conv_resize_reference(frames, out_hw, kernels, bias)
     assert out.shape == (shape[0], c) + out_hw and torch.isfinite(out).all()
     assert _rel(out, ref) <= 1e-5
+    assert torch.equal(out, again)
 
 
 def test_conv_resize_is_deterministic_and_rows_are_independent():
@@ -1395,8 +1418,12 @@ def test_conv_resize_never_falls_back_on_card():
         conv_resize.fused_conv_resize(frames, (16, 32), kernels.clone().requires_grad_(True), bias)
     with pytest.raises(ValueError, match="odd K"):
         conv_resize.fused_conv_resize(frames, (16, 32), torch.zeros(4, 2, 2, device="cuda"), bias)
-    with pytest.raises(ValueError, match="does not fit"):
-        conv_resize.fused_conv_resize(frames, (16, 20000), kernels, bias)
+    # an output row of 20,000 columns, which the old design refused, is taken
+    wide = conv_resize.fused_conv_resize(frames, (16, 20000), kernels, bias)
+    assert _rel(wide, conv_resize.conv_resize_reference(frames, (16, 20000), kernels, bias)) <= 1e-5
+    with pytest.raises(ValueError, match="does not fit"):  # a filter bank past shared memory
+        conv_resize.fused_conv_resize(frames, (16, 32), torch.zeros(6000, 3, 3, device="cuda"),
+                                      torch.zeros(6000, device="cuda"))
     with pytest.raises(ValueError, match="contiguous"):
         conv_resize.fused_conv_resize(frames.transpose(1, 2), (16, 32), kernels, bias)
 
@@ -1917,17 +1944,21 @@ def test_bf16_cell_tensor_core_shapes(batch, d_in, hidden):
 
 
 def test_bf16_cell_refuses_what_the_tensor_cores_do_not_take():
+    """The shapes the bf16 cell refused before its unit-block grid (hidden
+    40 and 272, D_in 2000) are taken, against lstm_cell on the bf16 tensors
+    at CELL_TOL plus a bf16 step; a c that is not 16-byte aligned is still
+    refused."""
     rng = np.random.default_rng(0)
-    (p,) = _stack(rng, 3, 1, hidden=40)
-    p = LSTMParams(p.w.to(BF), p.b.to(BF))
-    x, h = _cuda(rng, (4, 3)).to(BF), _cuda(rng, (4, 40)).to(BF)
-    with pytest.raises(ValueError, match="hidden=40"):
-        fused_lstm.fused_lstm_cell(p, x, (h, h))
-    (q,) = _stack(rng, 2000, 1)
-    q = LSTMParams(q.w.to(BF), q.b.to(BF))
+    for d_in, hidden in ((3, 40), (3, 272), (2000, 128)):
+        (p,) = _stack(rng, d_in, 1, hidden=hidden)
+        p = LSTMParams(p.w.to(BF), p.b.to(BF))
+        x, h, c = _cuda(rng, (257, d_in)).to(BF), _cuda(rng, (257, hidden), 0.5).to(BF), _cuda(
+            rng, (257, hidden), 0.5).to(BF)
+        got = fused_lstm.fused_lstm_cell(p, x, (h, c))
+        for g, w in zip(got, lstm_cell(p, x, (h, c))):
+            assert g.shape == (257, hidden) and g.dtype == BF
+            assert ((g.float() - w.float()).abs() <= 1e-5 + 2.0 ** -7 * w.float().abs()).all()
     h = _cuda(rng, (4, 128)).to(BF)
-    with pytest.raises(ValueError, match="D_in=2000"):
-        fused_lstm.fused_lstm_cell(q, _cuda(rng, (4, 2000)).to(BF), (h, h))
     (q,) = _stack(rng, 3, 1)
     q = LSTMParams(q.w.to(BF), q.b.to(BF))
     shifted = torch.empty(4 * 128 + 1, device="cuda", dtype=BF)[1:].view(4, 128)

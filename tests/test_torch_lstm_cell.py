@@ -58,6 +58,35 @@ def test_cell_matches_the_jax_kernel(seed, b, d, zero_state):
     assert all(torch.equal(g, q) for g, q in zip(got, plain))
 
 
+ANY_HIDDEN = [(40, 3), (100, 16), (272, 5)]  # widths the kernel took only since its unit-block grid
+
+
+@pytest.fixture(scope="module")
+def jax_cells_at_any_hidden():
+    """JAX's fused_lstm_cell (interpret mode) at each ANY_HIDDEN shape, B =
+    6, from a random state: the inputs and its (h, c), computed once."""
+    out = {}
+    for i, (h, d) in enumerate(ANY_HIDDEN):
+        p, tp, x, hc = _cell_case(10 + i, 6, d, h, False)
+        out[h] = tp, x, hc, jax_fused_lstm_cell(p, jnp.asarray(x), tuple(jnp.asarray(a) for a in hc))
+    return out
+
+
+@pytest.mark.parametrize("hidden", [h for h, _ in ANY_HIDDEN])
+def test_cell_matches_the_jax_kernel_at_any_hidden(hidden, jax_cells_at_any_hidden):
+    """Hidden 40, 100 and 272 (not multiples of 32, 272 past 256), which the
+    JAX kernel takes without a check: the wrapper's plain path against it
+    within its 1e-5; on the card the kernel takes them too
+    (tests/test_torch_kernel_cuda.py)."""
+    tp, x, (h, c), want = jax_cells_at_any_hidden[hidden]
+    before = fused_lstm.fused_lstm_cell.launches
+    got = fused_lstm.fused_lstm_cell(tp, torch.from_numpy(x), (torch.from_numpy(h), torch.from_numpy(c)))
+    assert fused_lstm.fused_lstm_cell.launches == before
+    for g, w in zip(got, want):
+        assert g.shape == (6, hidden)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=CELL_TOL)
+
+
 def test_get_cell_fn():
     assert cell.get_cell_fn() is cell.lstm_cell and cell.get_cell_fn("xla") is cell.lstm_cell
     assert cell.get_cell_fn("pallas") is fused_lstm.fused_lstm_cell
