@@ -96,7 +96,9 @@ one line each or more:
    rows, W resident at L = 1 and from L2 at L = 2, the lockstep tier at
    K = 7); then the time splits of the f32 encoder's probe builds (row 10 at
    B = 16384, row 11's forward and reverse at 4096), each beside the FMA
-   design's (``ENC_F32_SPLIT_BEFORE``);
+   design's (``ENC_F32_SPLIT_BEFORE``); the lockstep tier also at K = 9, 16,
+   64 and 256 peers in f32 (B·K about 28,672; at K = 256 one viewer a block
+   of 256 rows, c and the staging of h in device memory) and 16 in bf16;
 4. the ``seq2seq-tf-30`` serving main path: ``serving.make_serve_fn`` behind
    a ``DynamicBatcher`` answers 64 concurrent single-viewer requests and one
    bulk request; every answer equals the direct batched call and the numpy
@@ -156,7 +158,8 @@ one line each or more:
    oracle given the same per-step context; the grouped gateway against
    per-row serving; serve-bench at B = 16384 and 65536; a profile of one
    call; the tier and each of its kernels alone against plain (and
-   ``peer_context`` against cuDNN at the smaller batch);
+   ``peer_context`` against cuDNN at the smaller batch, and at K = 16 over
+   the same 28,672 peer rows);
 9. the ``stacked-ss-crossuser-10s`` training main path: ``train.train_loop``
    at B = 4096 through ``aligned_ss_decode`` (peers and decoder) and
    ``lstm_seq_states`` (encoder), as in 7, and the aligned kernels alone
@@ -272,7 +275,32 @@ one line each or more:
    (``BEFORE``), their bounds' share and their bounds on the FMA units;
    the bf16 cell (row 2b, on the tensor cores) beside its FMA design's time,
    with its device time and ``torch.lstm_cell``'s (``torch.profiler``) and
-   the host's time a call.
+   the host's time a call;
+18. predict, export and the daemon, through the CLI and ``serve_daemon``
+   on the card, weights from ``cli.bench_params_np``: ``export`` of a port
+   checkpoint of ``seq2seq-tf-30`` and of ``stacked-ss-crossuser-10s``,
+   loaded back onto the card bit-equal; ``predict --tiles --at-frame 400``
+   on the 10 s preset (K = 7, and ``--peers 16``) and ``predict
+   --peer-group --at-frame 200 --tiles`` on ``transformer-30``, each on the
+   card against the same command on the CPU (pitch and the great-circle
+   angle within ANGLE_TOL plus the JSONL's rounding of 1e-3 degrees, tiles
+   equal on TILES_EQUAL of rows); the ``seq2seq-tf-30`` daemon (max batch
+   256, warmup, ``impl="auto"``): one viewer's single-pose push flow on
+   each wire, its p50 and p99 and the p50's terms (the codec on both
+   sides, the batcher's queue, the device at B = 1 host to card to host,
+   the relay as the ``drop`` op's round trip, and what they leave), 64
+   clients of 20 ``predict`` each coalescing (``mean_batch`` > 1, every
+   answer equal to the serve program's row), a bulk ``predict_batch`` of
+   16384 windows on the binary wire beside ``serve-bench``'s traj/s, and a
+   ``reload`` of other weights while the 64 clients run (no request fails,
+   the version rises, the answers after it are the new weights'); the
+   ``stacked-ss-crossuser-10s`` and ``transformer-30`` daemons: 8 viewers
+   of one video pushing with ``video``/``frame``, staggered so that the
+   later ones get peers from the pool, each answer equal to the serve
+   program's with the pool's peer futures, and on ``transformer-30`` a
+   grouped ``predict_batch`` against the per-row path (GROUPED_BF16_TOL,
+   the card's bf16 tier) with the ``grouped`` block in ``stats``. Any error
+   reply to a client of the daemon fails the run.
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -293,12 +321,14 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -1309,8 +1339,11 @@ def check_all_kernels(dev):
           f"max_abs_err {json.dumps(errs)} "
           f"(forward {FWD_TOL}, plus one bf16 step on bf16 residuals; backward and reductions "
           f"{BWD_REL_TOL} of max|plain| per output)", flush=True)
+    # K = 9, 16, 64, 256 (predict --peers K): B·K about the 10 s preset's 28,672 peer rows; at K = 256 one
+    # viewer a block of 256 rows, c and the staging of h in device memory
     errs = {f"B={b} L={l} K={k}": check_peer_serve(dev, b, l, k, seed=l + k)
-            for b, l, k in ((4099, 1, 7), (4099, 2, 7), (4099, 2, 3), (16384, 2, 7))}
+            for b, l, k in ((4099, 1, 7), (4099, 2, 7), (4099, 2, 3), (16384, 2, 7), (3186, 2, 9), (1792, 2, 16),
+                            (448, 2, 64), (112, 2, 256))}
     print(f"lockstep fused_serve tier vs plain, hidden 128, C=128, 100+100 steps, a row with every peer "
           f"masked: max_abs_err {json.dumps(errs)} (peer_context {ENC_TOL}, outputs {KERNEL_TOL})", flush=True)
     errs = {}
@@ -1432,7 +1465,7 @@ def check_all_kernels(dev):
         errs[f"fused_serve B={b} L={l} C={c}"] = check_serve(dev, b, l, c, seed=l, cd=BF)
     for b, l in ((4 * 4099, 1), (4099, 2)):
         errs[f"fused_encode B={b} L={l}"] = check_encode(dev, b, l, seed=l, cd=BF)
-    for b, l, k in ((4099, 2, 7), (4099, 1, 3)):
+    for b, l, k in ((4099, 2, 7), (4099, 1, 3), (1792, 2, 16)):
         for name, r in check_peer_serve(dev, b, l, k, seed=l + k, cd=BF).items():
             errs[f"{name} B={b} L={l} K={k}"] = r
     for b, d in ((16384, 3), (16383, 128)):
@@ -2557,8 +2590,8 @@ def report_lstm_mma(builds):
     for ln in dump.splitlines():
         if "Function :" in ln:
             bf16 = "nv_bfloat16" in ln
-            fn = next((k for k in ("peer_context_kernel", "fused_encode_kernel", "lstm_cell_kernel",
-                                   "fused_serve_kernel") if k in ln), None)
+            fn = next((k for k in ("peer_context_kernel", "peer_context_glob_kernel", "fused_encode_kernel",
+                                   "lstm_cell_kernel", "fused_serve_kernel") if k in ln), None)
             if fn == "fused_serve_kernel":
                 fn += "<true>" if "ILb1E" in ln else "<false>"
             if fn:
@@ -2569,6 +2602,8 @@ def report_lstm_mma(builds):
     blocks = {"peer_context_kernel<bf16>": fused_lstm.peer_tc_rows(128, 7, 3),
               "fused_encode_kernel<bf16>": fused_lstm.encode_tc_rows(128, 1, 3),
               "peer_context_kernel<f32>": fused_lstm.peer_tf32_rows(128, 7, 3),
+              # K = 256 (predict --peers 256): one viewer a block of 256 rows, c and the staging in device memory
+              "peer_context_glob_kernel<f32>": fused_lstm.peer_tf32_rows(128, 256, 3),
               "fused_encode_kernel<f32>": fused_lstm.encode_tf32_rows(128, 1, 3)}
     for name, geo in blocks.items():
         tier = "nv_bfloat16" if name.endswith("<bf16>") else "IfE"
@@ -2606,16 +2641,19 @@ def report_lstm_mma(builds):
                   f"resident, c in shared memory, bytes of dynamic shared memory): "
                   f"{json.dumps({k: [g.rp, g.warps, g.w_res, g.c_smem, g.smem] for k, g in serving.items()})}",
                   flush=True)
-    geo = fused_lstm.peer_tf32_rows(128, 7, 3)
-    if lib.peer_context_smem_bytes(geo.rp, 63, 3, 128, 0, 1, 0) != geo.smem:
-        raise AssertionError("the f32 peer context's block: the library and the chooser disagree on its shared memory")
+    for k in (7, 16, 64, 256):  # K = 256: c and the staging of h in device memory
+        geo = fused_lstm.peer_tf32_rows(128, k, 3)
+        if lib.peer_context_smem_bytes(geo.rp, geo.rows_v * k, 3, 128, 0, int(geo.c_smem), 0,
+                                       int(geo.h_smem)) != geo.smem:
+            raise AssertionError(f"the f32 peer context's block at K={k}: the library and the chooser disagree on "
+                                 f"its shared memory")
     for bf16, choose in ((0, fused_lstm.encode_tf32_rows), (1, fused_lstm.encode_tc_rows)):
         for hidden, layers in ((128, 1), (64, 1), (128, 2)):
             g = choose(hidden, layers, 3)
             if lib.fused_encode_smem_bytes(g.rp, 3, hidden, layers, int(g.w_res), int(g.c_smem), bf16) != g.smem:
                 raise AssertionError(f"the encoder's block at H={hidden}, L={layers}: the library and the chooser "
                                      f"disagree on its shared memory")
-    if len(hmma) != 10 or not all(hmma.values()):
+    if len(hmma) != 11 or not all(hmma.values()):
         raise AssertionError(f"an LSTM kernel on the tensor cores has no HMMA instruction, its products off them: "
                              f"{hmma}")
 
@@ -2687,7 +2725,7 @@ def report_train_mma(builds):
             blocks[f"ss_fwd {name} {tier}"] = [f.rp, f.warps, f.c_smem, f.smem]
         g = lstm_align.peer_fwd_block(128, 7, 3, cd)
         if al_lib.align_peer_fwd_smem(3, 128, 7, g.rows_v, g.rp, g.mt, g.warps, int(g.w_res), int(g.c_smem),
-                                      int(cd == BF)) != g.smem:
+                                      int(cd == BF), int(g.h_smem)) != g.smem:
             raise AssertionError("the peer forward's block: the library and peer_fwd_block disagree")
         blocks[f"peer_fwd K=7 {tier}"] = [g.rp, g.warps, g.w_res, g.smem]
         for name, (h, layers, d) in (("seq2seq-tf-30", (128, 1, 3)), ("crossuser encoder", (128, 2, 3)),
@@ -2917,12 +2955,13 @@ def time_peer_serve(dev, params, cfg, batch, iters, smi, cd=F32):
           f"{json.dumps(err)}", flush=True)
 
 
-def time_peer_context(dev, peer, batch, k, t, smi, with_library, cd=F32):
+def time_peer_context(dev, peer, batch, k, t, smi, with_library, cd=F32, keep=True):
     """peer_context alone in the compute type ``cd`` over B·K peer rows,
     checked first, against its plain version (in bf16, and its f32 twin)
     and, ``with_library``, cuDNN nn.LSTM in ``cd`` returning every step's h
     (TF32 off; its workspace grows with rows x steps, so it runs only at the
-    smaller batch). The last call's numbers go to the kernels line."""
+    smaller batch). The last call's numbers go to the kernels line, unless
+    ``keep`` is False (a line of its own: K = 16)."""
     rng = np.random.default_rng(2)
     x_n = randn(rng, dev, (batch, 1, 3))
     pxs, w = peer_inputs(rng, dev, x_n, k, t)
@@ -2945,6 +2984,7 @@ def time_peer_context(dev, peer, batch, k, t, smi, with_library, cd=F32):
     ms = in_turns(fns, {"plain": 1, "kernel": 3, "library": 3, "f32_kernel": 3})
     rows = batch * k
     name = "peer_context" + ("_bf16" if cd == BF else "")
+    kept = TIMES.get(name)
     # the products on the tensor cores (bf16, or three-pass TF32), the context sum on the FMA units
     flop, reads = stack_flop(rows, t, [3], 128) + 2 * rows * t * 128, [pxs, w] + tier_reads(peer, cd)
     work = {BF16_FLOPS: flop} if cd == BF else {TF32X3_FLOPS: stack_flop(rows, t, [3], 128),
@@ -2954,9 +2994,12 @@ def time_peer_context(dev, peer, batch, k, t, smi, with_library, cd=F32):
           f"nn.LSTM over the peer rows, {smi}): {json.dumps(ms)}; bound {TIMES[name]['bound_ms']:.3f} "
           f"ms by {TIMES[name]['bound_by']}; vs plain {json.dumps(err)}", flush=True)
     # rows 1 and 1b on the tensor cores (lstm_mma.cuh)
-    report_redesign(name, smi, before=name if with_library else f"{name} B={batch}",
+    before = (name if with_library else f"{name} B={batch}") if k == 7 else f"{name} K={k}"
+    report_redesign(name, smi, before=before,
                     fma_bound=bound(flop, reads, [out])[0], no_library="cuDNN not run at this batch",
-                    extra=f" (B={batch})" + (f"; its f32 twin {ms['f32_kernel']:.4f} ms" if cd == BF else ""))
+                    extra=f" (B={batch}, K={k})" + (f"; its f32 twin {ms['f32_kernel']:.4f} ms" if cd == BF else ""))
+    if not keep:
+        TIMES[name] = kept
 
 
 # --------------------------------------------------------------- stacked-ss-crossuser training
@@ -4574,6 +4617,433 @@ def time_bf16_serving_kernels(dev, s2s_params, cparams, ccfg, c10params, c10cfg,
 # --------------------------------------------------------------- main
 
 
+# --------------------------------------------------------------- phase 18: predict, export and the daemon
+
+
+DAEMON_ERRORS = []  # error replies the daemon's clients got in phase 18: any fails the run
+DAEMON_PATHS = {  # the daemon's and predict's main paths → the kernels each must launch
+    f"daemon {PRESET}": ["fused_serve"],
+    f"daemon {CU10_PRESET}": ["fused_serve_peers", "peer_context"],
+    f"daemon {TF_PRESET}": ["fused_encode_tokens_bf16", "fused_ar_decode_bf16"],
+    f"predict {CU10_PRESET}": ["fused_serve_peers", "peer_context"],
+    f"predict {CU10_PRESET} --peers 16": ["fused_serve_peers", "peer_context"],
+    f"predict {TF_PRESET} --peer-group": ["fused_encode_tokens_bf16", "fused_ar_decode_bf16"],
+}
+BULK_REQ = 2048  # windows a bulk request: the daemon's batcher admits 8 x max_batch rows at a time
+# predict prints angles rounded to 1e-3 degrees: its card-vs-CPU gate is ANGLE_TOL plus that rounding
+PREDICT_TOL = ANGLE_TOL + math.radians(1e-3)
+
+
+def answered(reply, what):
+    """A daemon reply, with any error reply noted for the end of the phase."""
+    if "error" in reply:
+        DAEMON_ERRORS.append(f"{what}: {reply['error']}")
+    return reply
+
+
+def export_preset(preset, tmp):
+    """A port checkpoint of ``preset`` holding its bench weights, through
+    ``cli export`` → the npz, whose params load onto the card bit-equal."""
+    cfg = get_preset(preset)
+    fam = get_family(cfg.model_family)
+    params = params_from_numpy(cli.bench_params_np(cfg, 0), "cpu")
+    opt = train.make_optimizer(cfg)
+    ck, npz = os.path.join(tmp, f"ck-{preset}"), os.path.join(tmp, f"{preset}.npz")
+    checkpoint.Checkpointer(ck, cfg).save(train.TrainState(params, opt.init(params), 1, torch.Generator()))
+    cli.main(["export", "--preset", preset, "--ckpt-dir", ck, "--out", npz])
+    loaded = serving.load_exported_params(npz, cfg, fam, device="cuda")
+    pairs = list(zip(serving.flat_param_items(params), serving.flat_param_items(loaded)))
+    same = all(ka == kb and b.is_cuda and torch.equal(a, b.cpu()) for (ka, a), (kb, b) in pairs)
+    print(f"export {preset}: {len(pairs)} arrays; load_exported_params(device='cuda') bit-equal to the "
+          f"checkpoint's params: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"export {preset}: the npz does not load back bit-equal")
+    return npz
+
+
+def predict_rows(argv, device, tmp, tag):
+    out = os.path.join(tmp, f"{tag}-{device}.jsonl")
+    cli.main([*argv, "--device", device, "--out", out])
+    with open(out) as f:
+        return [json.loads(line) for line in f]
+
+
+def compare_xyz(r):
+    """A predict row's directions (H_out, 3) from its rounded degrees."""
+    y, p = np.radians(np.asarray(r["yaw_deg"], np.float64)), np.radians(np.asarray(r["pitch_deg"], np.float64))
+    return np.stack([np.cos(p) * np.cos(y), np.cos(p) * np.sin(y), np.sin(p)], -1)
+
+
+def compare_predictions(label, card, cpu, smi, tol=PREDICT_TOL, tiles_gate=TILES_EQUAL):
+    """``predict`` rows of the card against the CPU's: the same rows and
+    keys, pitch and the great-circle angle within ``tol`` (yaw reported),
+    tiles equal on ``tiles_gate`` of rows (None: reported only)."""
+    if len(card) != len(cpu) or any(a.keys() != b.keys() for a, b in zip(card, cpu)):
+        raise AssertionError(f"{label}: the card's rows differ from the CPU's in count or keys")
+    meta = all(a[k] == b[k] for a, b in zip(card, cpu) for k in a if not k.endswith("_deg") and k != "prefetch_tiles")
+    d_pitch = max(np.radians(np.abs(np.subtract(a["pitch_deg"], b["pitch_deg"])).max()) for a, b in zip(card, cpu))
+    d_yaw = max(np.radians(np.abs(np.subtract(a["yaw_deg"], b["yaw_deg"])).max()) for a, b in zip(card, cpu))
+    d_dir = max(float(np.arccos(np.clip((compare_xyz(a) * compare_xyz(b)).sum(-1), -1, 1)).max())
+                for a, b in zip(card, cpu))
+    tiles = float(np.mean([a.get("prefetch_tiles") == b.get("prefetch_tiles") for a, b in zip(card, cpu)]))
+    print(f"{label}: {len(card)} viewers, peers used {[r.get('peers_used') for r in card]}; card against the CPU: "
+          f"max |Δpitch| {d_pitch:.3e}, great-circle {d_dir:.3e} rad (tolerance {tol:.3e}; |Δyaw| {d_yaw:.3e}), "
+          f"rows with equal tiles {tiles:.3f} ({'reported' if tiles_gate is None else f'at least {tiles_gate}'}), "
+          f"other fields equal {meta} ({smi})", flush=True)
+    if not (meta and d_pitch <= tol and d_dir <= tol and (tiles_gate is None or tiles >= tiles_gate)):
+        raise AssertionError(f"{label}: the card's predictions differ from the CPU's")
+
+
+def start_daemon(cfg, params):
+    """``serve_daemon`` on the card (max batch 256, warmup, impl "auto") on
+    an ephemeral port, served from a thread."""
+    server = serving.serve_daemon(params, cfg, get_family(cfg.model_family), device="cuda", host="127.0.0.1",
+                                  port=0, max_batch=256, impl="auto")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server
+
+
+def stop_daemon(server):
+    server.shutdown()
+    server.server_close()
+    server.batcher.stop()
+
+
+def pose_walk(rng, n):
+    """A viewer's head path: [yaw, pitch] radians, a smooth random walk."""
+    yaw = np.cumsum(rng.normal(0.0, 0.02, n)) + rng.uniform(-np.pi, np.pi)
+    pitch = np.clip(np.cumsum(rng.normal(0.0, 0.01, n)), -1.2, 1.2)
+    return np.stack([yaw, pitch], -1).tolist()
+
+
+def median_s(fn, n=300):
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts))
+
+
+def single_pose_traffic(cfg, params, wire):
+    """One viewer pushes single poses on ``wire`` to a fresh daemon until its
+    window fills, then 300 more; then 300 ``drop`` ops on the same
+    connection → the round trips of the answered pushes, the batcher's
+    latency p50, the drop's median round trip, the last window and its
+    batcher result."""
+    server = start_daemon(cfg, params)
+    h_in = cfg.model.h_in
+    poses = pose_walk(np.random.default_rng(18), h_in + 300)
+    client = serving.FovClient(*server.server_address, wire=wire)
+    lat = []
+    try:
+        for i, pose in enumerate(poses):
+            t0 = time.perf_counter()
+            r = answered(client.push("viewer", pose), f"push on the {wire} wire")
+            if i >= h_in - 1:
+                lat.append(time.perf_counter() - t0)
+                if "yaw" not in r:
+                    DAEMON_ERRORS.append(f"a push with a full window got no prediction: {r}")
+        batcher_p50 = server.batcher.stats()["latency_ms_p50"]
+        relay = median_s(lambda: answered(client.request({"op": "drop", "viewer": "nobody"}), "drop"))
+        window = np.stack([serving.pose_to_xyz(p) for p in poses[-h_in:]])
+        res = server.batcher.predict(window)
+    finally:
+        client.close()
+        stop_daemon(server)
+    return {"lat": lat, "batcher_p50": batcher_p50, "relay": relay, "window": window, "res": res,
+            "pose": poses[-1]}
+
+
+def single_pose_terms(cfg, params, wire, flow, smi):
+    """p50 and p99 of a single-pose flow and the p50's terms: the codec
+    (the request and the reply encoded and decoded alone, both sides), the
+    queue (the batcher's latency p50 less the device term), the device (the
+    packed serve program at B = 1, host to card to host, CUDA events), the
+    relay (the ``drop`` op's round trip: a dispatch with no device work)
+    and what they leave."""
+    req, res = {"op": "push", "viewer": "viewer", "pose": flow["pose"], "id": 1}, flow["res"]
+    if wire == "json":
+        line, reply = (json.dumps(req) + "\n").encode(), (json.dumps(serving.FovServer._prediction(1, res)) + "\n")
+        codec = (median_s(lambda: (json.dumps(req) + "\n").encode()) + median_s(lambda: json.loads(line))
+                 + median_s(lambda: (json.dumps(serving.FovServer._prediction(1, res)) + "\n").encode())
+                 + median_s(lambda: json.loads(reply)))
+    else:
+        frame, out = serving.encode_frame(req), serving.encode_frame(serving.FovServer._prediction(1, res, raw=True))
+        codec = (median_s(lambda: serving.encode_frame(req)) + median_s(lambda: serving.read_frame(io.BytesIO(frame)))
+                 + median_s(lambda: serving.encode_frame(serving.FovServer._prediction(1, res, raw=True)))
+                 + median_s(lambda: serving.read_frame(io.BytesIO(out))))
+    fn = serving.make_serve_fn(params, cfg, get_family(cfg.model_family), device="cuda")
+    batch = {"past": flow["window"][None]}
+    fn(batch).cpu()
+
+    def device_ms():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(batch).cpu()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    device = float(np.median([device_ms() for _ in range(300)]))
+    p50, p99 = (float(np.percentile(flow["lat"], q)) * 1e3 for q in (50, 99))
+    terms = {"codec": codec * 1e3, "queue": flow["batcher_p50"] - device, "device": device,
+             "relay": flow["relay"] * 1e3}
+    terms["unexplained"] = p50 - sum(terms.values())
+    print(f"daemon {cfg.name} single-pose push flow, {wire} wire, {len(flow['lat'])} answered pushes: p50 "
+          f"{p50:.4f} ms, p99 {p99:.4f} ms; the p50's terms (ms) "
+          f"{json.dumps({k: round(v, 4) for k, v in terms.items()})} (codec: the request and the reply encoded and "
+          f"decoded on both sides; queue: the batcher's latency p50 {flow['batcher_p50']} less the device term; "
+          f"device: the packed serve program at B=1, host to card to host, CUDA events; relay: the drop op's round "
+          f"trip) ({smi})", flush=True)
+    return {"p50_ms": p50, "p99_ms": p99, **terms}
+
+
+def client_traffic(server, windows, n_clients, on_count=None):
+    """``n_clients`` binary-wire clients send ``predict`` for their share of
+    ``windows`` (row i by client i % n_clients) → [(row, time sent,
+    reply)]; ``on_count`` = (k, fn): fn() runs once k replies are back."""
+    done, lock, fired = [], threading.Lock(), threading.Event()
+
+    def worker(c):
+        client = serving.FovClient(*server.server_address, wire="binary")
+        try:
+            for i in range(c, len(windows), n_clients):
+                t0 = time.perf_counter()
+                r = answered(client.predict(windows[i]), "predict")
+                with lock:
+                    done.append((i, t0, r))
+                    go = on_count is not None and len(done) >= on_count[0] and not fired.is_set()
+                    if go:
+                        fired.set()
+                if go:
+                    on_count[1]()
+        finally:
+            client.close()
+
+    with ThreadPoolExecutor(max_workers=n_clients) as pool:
+        list(pool.map(worker, range(n_clients)))
+    return done
+
+
+def s2s_daemon_traffic(cfg, params, tmp):
+    """The ``seq2seq-tf-30`` daemon's traffic: 64 clients x 20 ``predict``,
+    a bulk ``predict_batch`` of 16384 windows on the binary wire, and the
+    64 clients again with a ``reload`` of other weights once 300 replies
+    are back → what each gave (checked by :func:`check_s2s_daemon`)."""
+    rng = np.random.default_rng(181)
+    out = {"windows": unit_pasts(rng, 64 * 20, cfg.model.h_in), "bulk": unit_pasts(rng, 16384, cfg.model.h_in)}
+    out["new_np"] = cli.bench_params_np(cfg, 1)
+    npz = os.path.join(tmp, "reload.npz")
+    np.savez(npz, **{k: np.asarray(v) for k, v in serving.flat_param_items(out["new_np"])})
+    server = start_daemon(cfg, params)
+    try:
+        before = server.batcher.stats()
+        out["coalesced"] = client_traffic(server, out["windows"], 64)
+        after = server.batcher.stats()
+        out["batches"] = after["batches"] - before["batches"]
+        out["mean_batch"] = (after["requests"] - before["requests"]) / max(out["batches"], 1)
+        # the batcher admits 8 batches of rows (2048) at a time, as JAX's: the
+        # 16384 windows go as 8 requests of 2048 on one connection
+        client = serving.FovClient(*server.server_address, wire="binary", timeout=300.0)
+        try:
+            answered(client.request({"op": "predict_batch", "past": out["bulk"][:256]}), "bulk predict_batch")
+            t0 = time.perf_counter()
+            parts = [answered(client.request({"op": "predict_batch", "past": out["bulk"][i:i + BULK_REQ]}),
+                              "bulk predict_batch") for i in range(0, len(out["bulk"]), BULK_REQ)]
+            out["bulk_s"] = time.perf_counter() - t0
+        finally:
+            client.close()
+        out["bulk_reply"] = {k: np.concatenate([r[k] for r in parts]) for k in ("yaw", "pitch")
+                             if all(k in r for r in parts)}
+        out["version"], reloaded = server.reload_ctx[0].version, {}
+
+        def reload():
+            c = serving.FovClient(*server.server_address, wire="json")
+            try:
+                reloaded["reply"] = answered(c.request({"op": "reload", "path": npz}), "reload")
+                reloaded["at"] = time.perf_counter()
+            finally:
+                c.close()
+
+        out["reload_traffic"] = client_traffic(server, out["windows"], 64, on_count=(300, reload))
+        out["reloaded"], out["version_after"] = reloaded, server.reload_ctx[0].version
+    finally:
+        stop_daemon(server)
+    return out
+
+
+def row_gap(reply, direct, rows):
+    return max(float(np.abs(np.asarray(reply[k], np.float64) - direct[k][rows]).max()) for k in ("yaw", "pitch"))
+
+
+def check_s2s_daemon(cfg, params, t, smi):
+    """Every answer of :func:`s2s_daemon_traffic` against the serve
+    program's row: coalesced (mean batch > 1), bulk, and around the reload
+    (after its reply: the new weights'; before: the old or the new)."""
+    fam = get_family(cfg.model_family)
+    fn = serving.make_serve_fn(params, cfg, fam, device="cuda")
+    new_fn = serving.make_serve_fn(params_from_numpy(t["new_np"], "cuda"), cfg, fam, device="cuda")
+    old, new = (fn.unpack(f({"past": t["windows"]}).cpu().numpy()) for f in (fn, new_fn))
+    gap = max(row_gap(r, old, i) for i, _, r in t["coalesced"])
+    print(f"daemon {cfg.name}: 64 clients x 20 predict requests in {t['batches']} batches, mean batch "
+          f"{t['mean_batch']:.2f}; max |answer - the serve program's row| {gap:.3e}", flush=True)
+    if not (len(t["coalesced"]) == len(t["windows"]) and t["mean_batch"] > 1 and gap <= 1e-6):
+        raise AssertionError("the daemon's concurrent answers did not coalesce or differ from the serve program")
+    bench = cli.serve_bench(preset=cfg.name, batch=16384, iters=10, impl="fused", device="cuda:0")
+    bulk = fn.unpack(fn({"past": t["bulk"]}).cpu().numpy())
+    gap = row_gap(t["bulk_reply"], bulk, slice(None)) if t["bulk_reply"] else float("inf")
+    print(f"daemon {cfg.name}: bulk predict_batch of 16384 windows on the binary wire ({16384 // BULK_REQ} requests "
+          f"of {BULK_REQ}, one connection) in {t['bulk_s'] * 1e3:.3f} ms, {16384 / t['bulk_s']:.1f} windows/s (max "
+          f"batch 256: 64 batches); serve-bench at B=16384 "
+          f"{bench['viewers_per_sec']:.1f} traj/s; max |answer - the serve program's row| {gap:.3e} ({smi})",
+          flush=True)
+    if not gap <= 1e-6:
+        raise AssertionError("bulk answers differ from the serve program's rows")
+    at = t["reloaded"].get("at", float("inf"))
+    after = [(i, r) for i, t0, r in t["reload_traffic"] if t0 > at]
+    gap_new = max((row_gap(r, new, i) for i, r in after), default=float("inf"))
+    either = all(min(row_gap(r, old, i), row_gap(r, new, i)) <= 1e-6 for i, _, r in t["reload_traffic"])
+    print(f"daemon {cfg.name}: reload during 64 clients' traffic: reply {json.dumps(t['reloaded'].get('reply'))}, "
+          f"version {t['version']} → {t['version_after']}; {len(t['reload_traffic'])} answers, {len(after)} sent "
+          f"after the reload's reply, max |answer - the new weights' row| there {gap_new:.3e}; every answer the old "
+          f"or the new weights' {either}", flush=True)
+    if not (t["reloaded"].get("reply", {}).get("reloaded") and t["version_after"] == t["version"] + 1
+            and len(t["reload_traffic"]) == len(t["windows"]) and after and gap_new <= 1e-6 and either):
+        raise AssertionError("the reload during traffic lost a request or served the wrong weights")
+    return 16384 / t["bulk_s"], bench["viewers_per_sec"]
+
+
+def peer_push_traffic(cfg, params):
+    """8 viewers of one video push their trace's poses with ``video`` and
+    ``frame`` on the binary wire: viewer 0 runs ahead, viewer j stops at
+    frame h_in - 1 + 10·j, so the later viewers' last answers condition on
+    the pool's peers → (the daemon, still serving; per later viewer: its
+    last reply, window and the pool's peer futures for it)."""
+    server = start_daemon(cfg, params)
+    m = cfg.model
+    store = traces.synthetic_store(n_users=8, n_videos=1, n_frames=600, rate_hz=cfg.rate_hz, seed=cfg.seed + 1)
+    client = serving.FovClient(*server.server_address, wire="binary")
+    out = []
+    try:
+        for j, tr in enumerate(store.traces):
+            last = m.h_in + m.h_out + 80 if j == 0 else m.h_in - 1 + 10 * j
+            for f in range(last + 1):
+                r = answered(client.request({"op": "push", "viewer": tr.user, "pose": tr.xyz[f], "video": tr.video,
+                                             "frame": f}), "push with video")
+            if j:
+                window = np.stack([serving.pose_to_xyz(p) for p in tr.xyz[last - m.h_in + 1:last + 1]])
+                out.append((r, window, server.peers.peers_for(tr.video, tr.user, last)))
+    except BaseException:
+        stop_daemon(server)
+        raise
+    finally:
+        client.close()
+    return server, out
+
+
+def check_peer_push(cfg, params, viewers, smi):
+    """The later viewers' last answers: peers > 0, and equal to the serve
+    program's with the pool's peer futures."""
+    fn = serving.make_serve_fn(params, cfg, get_family(cfg.model_family), device="cuda")
+    peers, gaps = [], []
+    for r, window, got in viewers:
+        peers.append(int(r.get("peers", -1)))
+        extras = {} if got is None else {"other_future": got[0][None], "other_mask": got[1][None]}
+        gaps.append(row_gap(r, fn.unpack(fn({"past": window[None], **extras}).cpu().numpy()), 0)
+                    if "yaw" in r else float("inf"))
+    print(f"daemon {cfg.name}: 8 viewers of one video pushing with video and frame, staggered: peers of the later "
+          f"viewers' last answers {peers} (K={cfg.n_other_users}); max |answer - the serve program's with the pool's "
+          f"peer futures| {max(gaps):.3e} ({smi})", flush=True)
+    if not (all(p > 0 for p in peers) and max(gaps) <= 1e-6):
+        raise AssertionError(f"daemon {cfg.name}: live peer context missing or answers off the serve program")
+
+
+def grouped_on_daemon(cfg, server, smi):
+    """A grouped ``predict_batch`` (each video's K peers sent once) against
+    the per-row bulk path on the same sets, both on the daemon (the card's
+    bf16 tier): pitch and the great-circle angle within GROUPED_BF16_TOL,
+    tiles equal on TILES_EQUAL; ``stats`` shows the grouped block."""
+    pasts, keys, sets = grouped_inputs(cfg, "cuda", 512, 8, seed=18)
+    keys = [str(k) for k in keys]
+    sets = {str(k): v for k, v in sets.items()}
+    client = serving.FovClient(*server.server_address, wire="binary", timeout=120.0)
+    try:
+        g = answered(client.predict_group(pasts, keys, sets), "grouped predict_batch")
+        of = np.stack([sets[k] for k in keys])
+        r = answered(client.request({"op": "predict_batch", "past": pasts, "other_future": of,
+                                     "other_mask": (np.abs(of).max(axis=(2, 3)) > 0).astype(np.float32)}),
+                     "per-row predict_batch")
+        stats = answered(client.request({"op": "stats"}), "stats")
+    finally:
+        client.close()
+    if "yaw" not in g or "yaw" not in r:
+        raise AssertionError("the daemon's grouped or per-row bulk request failed")
+    d_yaw, d_pitch, d_dir, tiles = direction_gaps(
+        np.concatenate([g["yaw"], g["pitch"], g["prefetch"]], -1),
+        np.concatenate([r["yaw"], r["pitch"], r["prefetch"]], -1), cfg.model.h_out)
+    print(f"daemon {cfg.name}: grouped predict_batch of 512 windows over 8 videos against the per-row path: max "
+          f"|Δpitch| {d_pitch:.3e}, great-circle {d_dir:.3e} rad (tolerance {GROUPED_BF16_TOL}; |Δyaw| {d_yaw:.3e}), "
+          f"tiles equal {tiles:.4f}; stats' grouped block {json.dumps(stats.get('grouped'))} ({smi})", flush=True)
+    if not (d_pitch <= GROUPED_BF16_TOL and d_dir <= GROUPED_BF16_TOL and tiles >= TILES_EQUAL
+            and stats.get("grouped", {}).get("requests", 0) >= 1):
+        raise AssertionError("the daemon's grouped path differs from its per-row path")
+
+
+def drive_slice_c(dev, smi):
+    """Phase 18: export, predict and the daemon on the card. Each main path
+    (``DAEMON_PATHS``) runs under :func:`drive`; the comparisons with the
+    serve program and the CPU run outside it."""
+    readings = {}
+    tcfg = get_preset(TF_PRESET)
+    with tempfile.TemporaryDirectory() as tmp:
+        s2s_npz = export_preset(PRESET, tmp)
+        c10_npz = export_preset(CU10_PRESET, tmp)
+        tf_npz = os.path.join(tmp, "tf.npz")
+        np.savez(tf_npz, **{k: np.asarray(v) for k, v in serving.flat_param_items(cli.bench_params_np(tcfg, 0))})
+        for label, extra in ((f"predict {CU10_PRESET}", []), (f"predict {CU10_PRESET} --peers 16", ["--peers", "16"])):
+            argv = ["predict", "--preset", CU10_PRESET, "--params", c10_npz, *extra, "--impl", "fused", "--tiles",
+                    "--at-frame", "400"]
+            cpu = predict_rows(argv, "cpu", tmp, "cpu")
+            card, _ = drive(label, lambda: predict_rows(argv, "cuda", tmp, "card"), also=DAEMON_PATHS[label])
+            compare_predictions(label, card, cpu, smi)
+        # the card serves the transformer in its bf16 tier, the CPU in f32: held at the repo's bound for that
+        # tier against f32 (GROUPED_BF16_TOL), tiles reported
+        label = f"predict {TF_PRESET} --peer-group"
+        argv = ["predict", "--preset", TF_PRESET, "--params", tf_npz, "--peer-group", "--at-frame", "200", "--tiles"]
+        cpu = predict_rows(argv, "cpu", tmp, "cpu")
+        card, _ = drive(label, lambda: predict_rows(argv, "cuda", tmp, "card"), also=DAEMON_PATHS[label])
+        compare_predictions(label, card, cpu, smi, tol=GROUPED_BF16_TOL, tiles_gate=None)
+
+        cfg = get_preset(PRESET)
+        params = serving.load_exported_params(s2s_npz, cfg, get_family(cfg.model_family), device="cuda")
+        label = f"daemon {PRESET}"
+        (flows, traffic), _ = drive(label, lambda: (
+            {wire: single_pose_traffic(cfg, params, wire) for wire in ("json", "binary")},
+            s2s_daemon_traffic(cfg, params, tmp)), also=DAEMON_PATHS[label])
+        for wire, flow in flows.items():
+            readings[wire] = single_pose_terms(cfg, params, wire, flow, smi)
+        readings["bulk_windows_per_s"], readings["serve_bench_traj_per_s"] = check_s2s_daemon(cfg, params, traffic,
+                                                                                               smi)
+
+    for cfg_ in (get_preset(CU10_PRESET), tcfg):
+        params_ = params_from_numpy(cli.bench_params_np(cfg_, 0), dev)
+        label = f"daemon {cfg_.name}"
+        (server, viewers), _ = drive(label, lambda: peer_push_traffic(cfg_, params_), also=DAEMON_PATHS[label])
+        try:
+            if cfg_ is tcfg:
+                grouped_on_daemon(cfg_, server, smi)
+        finally:
+            stop_daemon(server)
+        check_peer_push(cfg_, params_, viewers, smi)
+    print(f"daemon and predict: error replies {len(DAEMON_ERRORS)} {json.dumps(DAEMON_ERRORS[:5])} ({smi})",
+          flush=True)
+    if DAEMON_ERRORS:
+        raise AssertionError(f"the daemon answered {len(DAEMON_ERRORS)} requests with an error")
+    print(f"daemon {PRESET} readings: {json.dumps(readings)} ({smi})", flush=True)
+    return readings
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only on the card")
@@ -4689,6 +5159,8 @@ def main():
     for batch, with_library in ((65536, False), (4096, True)):
         time_peer_context(dev, c10params["peer_encoder"], batch, c10cfg.n_other_users, c10cfg.model.h_out, smi,
                           with_library)
+    # K = 16 (predict --peers 16) over the same 28,672 peer rows as B = 4096, K = 7
+    time_peer_context(dev, c10params["peer_encoder"], 1792, 16, c10cfg.model.h_out, smi, True, keep=False)
     torch.cuda.empty_cache()
 
     phase("9 train stacked-ss-crossuser-10s")
@@ -4855,6 +5327,12 @@ def main():
     drive_bf16_params(TF_PRESET, dev, [], smi, steps=4)
     torch.cuda.empty_cache()
     time_bf16_serving_kernels(dev, params, cparams, ccfg, c10params, c10cfg, smi)
+
+    phase("18 predict, export and the daemon")
+    # 18. export, predict (the lockstep tier at K = 7 and 16, the transformer's
+    # grouped gateway) and the TCP daemon on the card
+    drive_slice_c(dev, smi)
+    torch.cuda.empty_cache()
 
     phase("done")
     launches = {S2S_SERVE: s2s_serve, S2S_CELL: s2s_cell, S2S_DECODE: s2s_decode, S2S_TRAIN: s2s_train,

@@ -4,15 +4,19 @@
 synthetic store's windows (with ``--features``, each window's video
 features) into an npz; ``extract-features`` turns per-video frame arrays
 into per-frame feature vectors; ``train`` trains a preset and ``eval``
-evaluates its checkpoint (twins of the JAX subcommands); ``serve-bench``
-times the serve path (twin of the JAX ``serve-bench``) on an explicit device
-and prints one JSON line. On ``--device cuda`` the time comes from CUDA
-events and the line names the card and its power limit; on ``--device cpu``
-it is the host clock, for rehearsal only.
+evaluates its checkpoint; ``export`` flattens a checkpoint's params into one
+npz; ``predict`` writes one JSON line of predicted trajectories per viewer;
+``serve-daemon`` runs the online TCP server (twins of the JAX subcommands);
+``serve-bench`` times the serve path (twin of the JAX ``serve-bench``) and
+prints one JSON line. On the card the time comes from CUDA events and the
+line names the card and its power limit; on ``--device cpu`` it is the host
+clock, for rehearsal only.
 
-Every subcommand that computes on a device takes ``--device`` and runs
-there; the f32 products and convolutions run in full f32 on the card
-(``exact_f32_matmul``). ``prepare-data`` is host numpy and takes none.
+Every subcommand that computes on a device takes ``--device``, ``cuda`` by
+default (``cpu`` runs the kernels' plain versions), and runs there; the f32
+products and convolutions run in full f32 on the card
+(``exact_f32_matmul``). ``prepare-data`` is host numpy and ``export`` reads
+the checkpoint on the CPU: they take none.
 """
 
 from __future__ import annotations
@@ -39,9 +43,10 @@ _NOT_PORTED = {
     "pipeline_parallel": "--pipeline-parallel: ROADMAP.md, slice 'parallelism'",
     "tb_dir": "--tb-dir: ROADMAP.md, slice 'the TCP daemon and CLI'",
 }
-# serve-bench --impl, JAX's names: "fused" the hand-written kernels, "xla"
-# the plain PyTorch path
+# serve-bench and predict --impl, JAX's names: "fused" the hand-written
+# kernels, "xla" the plain PyTorch path
 SERVE_IMPLS = ("xla", "fused")
+DEVICE_HELP = "cuda (the default), cuda:N or cpu"
 
 
 def card(device: torch.device) -> dict:
@@ -214,7 +219,7 @@ def _build_parser() -> argparse.ArgumentParser:
     xf.add_argument("--max-frames", type=int)
     xf.add_argument("--stride", type=int, default=1)
     xf.add_argument("--seed", type=int, default=0, help="conv filter seed (torch.Generator)")
-    xf.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
+    xf.add_argument("--device", default="cuda", help=DEVICE_HELP)
     sb = sub.add_parser("serve-bench", help="serve-path throughput microbench")
     sb.add_argument("--preset", default="seq2seq-tf-30")
     sb.add_argument("--batch", type=int, default=4096)
@@ -224,7 +229,7 @@ def _build_parser() -> argparse.ArgumentParser:
         help="fused = the hand-written CUDA serve kernels (the default: the card's path); "
         "xla = the plain PyTorch path",
     )
-    sb.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
+    sb.add_argument("--device", default="cuda", help=DEVICE_HELP)
     sb.add_argument("--seed", type=int, default=0)
     sb.add_argument("--peer-align", action="store_true", dest="peer_align")
 
@@ -240,7 +245,7 @@ def _build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--ckpt-dir")
     tr.add_argument("--log-file")
     tr.add_argument("--resume", action="store_true")
-    tr.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
+    tr.add_argument("--device", default="cuda", help=DEVICE_HELP)
     tr.add_argument("--train-compute", dest="train_compute", choices=["float32", "bfloat16"])
     tr.add_argument("--peer-align", action="store_true", dest="peer_align")
     tr.add_argument("--bf16", action="store_true", help="bfloat16 params (model.param_dtype)")
@@ -255,14 +260,85 @@ def _build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--ckpt-dir", required=True)
     ev.add_argument("--data")
     ev.add_argument("--json", action="store_true")
-    ev.add_argument("--device", required=True, help="cuda, cuda:N or cpu")
+    ev.add_argument("--device", default="cuda", help=DEVICE_HELP)
     ev.add_argument("--peer-align", action="store_true", dest="peer_align")
-    for cp in (sb, tr, ev):
+
+    pr = sub.add_parser(
+        "predict",
+        help="one-shot offline prediction: each viewer trace's last H_in frames in, predicted "
+        "(yaw, pitch) trajectory out, one JSON line per viewer",
+    )
+    pr.add_argument("--preset", required=True)
+    group = pr.add_mutually_exclusive_group(required=True)
+    group.add_argument("--ckpt-dir", help="checkpoint directory of `train`")
+    group.add_argument("--params", help="flat npz from `export` (the port's or the JAX package's)")
+    pr.add_argument("--traces", help="trace dir (not ported yet: raises); synthetic store if omitted")
+    pr.add_argument("--dataset-format", default="auto")
+    pr.add_argument("--at-frame", type=int, default=None, metavar="N",
+                    help="predict from the window ending at frame N (exclusive); default: each trace's "
+                    "last frame")
+    pr.add_argument("--peers", type=int, default=-1,
+                    help="cross-viewer context size K (other viewers of the same video whose frames past "
+                    "the window end are known); -1 = the preset's K for peer-consuming families, 0 = none")
+    pr.add_argument("--tiles", action="store_true", help="include the unioned prefetch tile set per viewer")
+    pr.add_argument("--tile-rows", type=int, default=6)
+    pr.add_argument("--tile-cols", type=int, default=12)
+    pr.add_argument("--fov", type=float, default=90.0)
+    pr.add_argument("--out", help="output JSONL path (default: stdout)")
+    pr.add_argument("--impl", default="fused", choices=SERVE_IMPLS,
+                    help="fused = the hand-written CUDA serve kernels (the default); xla = the plain "
+                    "PyTorch path")
+    pr.add_argument("--peer-group", action="store_true",
+                    help="group-shared peer serving (peer-consuming families): one peer set per video, the "
+                    "first K full-span traces, shared by every viewer of that video "
+                    "(serving.make_grouped_serve_fn)")
+    pr.add_argument("--device", default="cuda", help=DEVICE_HELP)
+
+    sd = sub.add_parser(
+        "serve-daemon",
+        help="online prediction server: line-JSON and binary frames over TCP, dynamic batching over "
+        "concurrent viewers, per-viewer pose sessions, prefetch tile sets",
+    )
+    sd.add_argument("--preset", required=True)
+    group = sd.add_mutually_exclusive_group(required=True)
+    group.add_argument("--ckpt-dir", help="checkpoint directory of `train`")
+    group.add_argument("--params", help="flat npz from `export` (the port's or the JAX package's)")
+    sd.add_argument("--host", default="127.0.0.1")
+    sd.add_argument("--port", type=int, default=8360)
+    sd.add_argument("--max-batch", type=int, default=256,
+                    help="largest coalesced batch (the bucket ladder caps here)")
+    sd.add_argument("--max-wait-ms", type=float, default=2.0, help="how long a lone request waits for co-arrivals")
+    sd.add_argument("--pipeline-depth", type=int, default=4,
+                    help="batches allowed in flight awaiting device readback (1 = minimal)")
+    sd.add_argument("--grouped-warmup", default=None,
+                    help="run the grouped bulk path once at these shapes before the socket opens: "
+                    "'ROWSxGROUPS[,ROWSxGROUPS...]', e.g. '2048x8,256x4'")
+    sd.add_argument("--no-tiles", action="store_true", help="skip prefetch tile sets in responses")
+    sd.add_argument("--tile-rows", type=int, default=6)
+    sd.add_argument("--tile-cols", type=int, default=12)
+    sd.add_argument("--fov", type=float, default=90.0)
+    sd.add_argument("--impl", default="auto", choices=("auto", "xla", "fused"),
+                    help="auto = fused: the CUDA kernels on the card, their plain versions on the CPU; "
+                    "xla = the plain PyTorch path")
+    sd.add_argument("--data-parallel", action="store_true",
+                    help="shard every dispatch over all local cards (not ported yet: raises)")
+    sd.add_argument("--device", default="cuda", help=DEVICE_HELP)
+
+    ex = sub.add_parser("export", help="checkpoint → flat npz for serving deployments")
+    ex.add_argument("--preset", required=True)
+    ex.add_argument("--ckpt-dir", required=True)
+    ex.add_argument("--out", required=True)
+    ex.add_argument("--step", type=int, help="default: latest")
+
+    for cp in (sb, tr, ev, sd, ex):
         cp.add_argument(
             "--peers", type=int, default=-1,
             help="cross-viewer context size K for this run (the params are "
             "K-agnostic); -1 = the preset's K",
         )
+    for cp in (pr, sd, ex):
+        cp.add_argument("--peer-align", action="store_true", dest="peer_align")
+    for cp in (sb, tr, ev, pr, sd, ex):
         # as in JAX: --h-in/--h-out (like --peer-align) change what the
         # params mean, so they are part of the model hash and every
         # subcommand that builds or loads the model takes them
@@ -292,7 +368,9 @@ def _overrides(args, **over) -> dict:
     for k in ("model_h_in", "model_h_out"):
         if getattr(args, k, None) is not None:
             over[k] = getattr(args, k)
-    if getattr(args, "peers", -1) >= 0:
+    # predict keeps its own --peers: how many peers to assemble per request,
+    # which may differ from the preset's K (the model reads K from the shape)
+    if getattr(args, "cmd", None) != "predict" and getattr(args, "peers", -1) >= 0:
         over["n_other_users"] = args.peers
     return over
 
@@ -542,10 +620,226 @@ def cmd_eval(args):
         print(E.comparison_table({cfg.name: res}))
 
 
+def _serving_params(args, cfg, fam, device):
+    """The params of ``--params`` (an `export` npz) or ``--ckpt-dir`` (the
+    latest checkpoint) on ``device``."""
+    from . import serving
+    from . import train as TR
+
+    if args.params:
+        return serving.load_exported_params(args.params, cfg, fam, device=device)
+    ck = _open_checkpoint(args.ckpt_dir, cfg)
+    return ck.restore(TR.init_state(cfg, fam.init, TR.make_optimizer(cfg), device=device)).params
+
+
+def cmd_export(args):
+    """Flatten a checkpoint's params into one npz (keys like
+    'encoder.0.w', ``serving.flat_param_items``), read on the CPU: serving
+    hosts load it with numpy alone, the JAX package's too."""
+    from . import train as TR
+    from .models import get_family
+    from .params import tensor_to_array
+    from .serving import flat_param_items
+
+    cfg = _preset_cfg(args)
+    fam = get_family(cfg.model_family)
+    ck = _open_checkpoint(args.ckpt_dir, cfg)
+    state = ck.restore(TR.init_state(cfg, fam.init, TR.make_optimizer(cfg), device="cpu"), step=args.step)
+    flat = {k: tensor_to_array(v) for k, v in flat_param_items(state.params)}
+    np.savez(args.out, **flat)
+    print(
+        f"exported {len(flat)} arrays "
+        f"({sum(a.nbytes for a in flat.values())/1e6:.2f} MB) → {args.out}"
+    )
+
+
+def cmd_predict(args):
+    """One-shot offline prediction: the last H_in observed frames of each
+    viewer trace go in; predicted (yaw, pitch) trajectories in degrees, and
+    optionally the unioned prefetch tile set, come out as one JSON line per
+    viewer, as the JAX ``predict`` writes them. Peer-consuming families
+    condition on other viewers' frames past the window end."""
+    from . import geometry, infer
+    from . import serving as SV
+    from . import traces as T
+    from .models import get_family
+    from .ops.fused_lstm import exact_f32_matmul
+
+    cfg = _preset_cfg(args)
+    fam = get_family(cfg.model_family)
+    if args.peer_group:
+        if cfg.model_family not in ("transformer", "cross_user") or args.peers == 0:
+            raise SystemExit(
+                "--peer-group is the peer-consuming families' shared-"
+                "peer tier; needs a transformer or cross_user preset "
+                "and K > 0 peers"
+            )
+        if args.at_frame is None:
+            raise SystemExit(
+                "--peer-group requires --at-frame: one shared playback "
+                "position defines the per-video peer span"
+            )
+    if args.traces:
+        raise SystemExit("not ported yet: predict --traces: ROADMAP.md, slice C-3 (trace ingest)")
+    device = _device(args.device)
+    exact_f32_matmul()
+    params = _serving_params(args, cfg, fam, device)
+    store = T.synthetic_store(n_users=8, n_videos=1, n_frames=600, rate_hz=cfg.rate_hz, seed=cfg.seed + 1)
+
+    extras = getattr(fam, "batch_extras", None)
+    k_peers = args.peers
+    if k_peers < 0:
+        k_peers = cfg.n_other_users if extras is not None else 0
+    h_in, h_out = cfg.model.h_in, cfg.model.h_out
+    if args.peer_group and not k_peers:
+        raise SystemExit("--peer-group with an effective K of 0 peers")
+    impl = "plain" if args.impl == "xla" else "fused"
+
+    rows, pasts, peer_blocks, peer_masks = [], [], [], []
+    for tr in store.traces:
+        end = args.at_frame if args.at_frame is not None else len(tr.xyz)
+        if end < h_in or end > len(tr.xyz):
+            print(f"skipping {tr.user}/{tr.video}: window end {end} outside [{h_in}, {len(tr.xyz)}]",
+                  file=sys.stderr)
+            continue
+        pasts.append(tr.xyz[end - h_in:end])
+        if k_peers and not args.peer_group:
+            peers = np.zeros((k_peers, h_out, 3), np.float32)
+            mask = np.zeros((k_peers,), bool)
+            got = 0
+            for p in store.others(tr):
+                if len(p.xyz) >= end + h_out:
+                    peers[got] = p.xyz[end:end + h_out]
+                    mask[got] = True
+                    got += 1
+                    if got == k_peers:
+                        break
+            peer_blocks.append(peers)
+            peer_masks.append(mask)
+        rows.append({"user": tr.user, "video": tr.video, "frame": end, "t_s": round(end / tr.rate_hz, 3),
+                     "rate_hz": tr.rate_hz, "horizon": h_out})
+    if not rows:
+        raise SystemExit("no trace long enough for a full input window")
+
+    fetch_union = None  # grouped path: horizon-unioned prefetch per row
+    tile_mask = None
+    if args.peer_group:
+        # one peer set per video: the first K full-span traces of the video
+        # at --at-frame, one copy of it on the device
+        end = args.at_frame
+        keys = [r["video"] for r in rows]
+        sets, masks = {}, {}
+        for video in dict.fromkeys(keys):
+            peers = np.zeros((k_peers, h_out, 3), np.float32)
+            m = np.zeros((k_peers,), np.float32)
+            got = 0
+            for tr in store.traces:
+                if tr.video != video or len(tr.xyz) < end + h_out:
+                    continue
+                peers[got] = tr.xyz[end:end + h_out]
+                m[got] = 1.0
+                got += 1
+                if got == k_peers:
+                    break
+            sets[video], masks[video] = peers, m
+        gfn = SV.make_grouped_serve_fn(params, cfg, fam, device=device, with_tiles=args.tiles,
+                                       tile_rows=args.tile_rows, tile_cols=args.tile_cols, fov_deg=args.fov,
+                                       impl=impl)
+        host = SV.grouped_predict(gfn, np.stack(pasts), keys, sets, masks)
+        yaw, pitch = np.degrees(host["yaw"]), np.degrees(host["pitch"])
+        fetch_union = host.get("prefetch")
+        group_used = {v: int(m.sum()) for v, m in masks.items()}
+    else:
+        batch = {"past": np.stack(pasts)}
+        if k_peers:
+            batch["other_future"] = np.stack(peer_blocks)
+            batch["other_mask"] = np.stack(peer_masks)
+        serve = infer.make_predict_fn(params, cfg, device=device, with_tiles=args.tiles,
+                                      tile_rows=args.tile_rows, tile_cols=args.tile_cols, fov_deg=args.fov,
+                                      impl=impl)
+        out = serve(batch)
+        xyz, tile_mask = out if args.tiles else (out, None)
+        yaw, pitch = geometry.xyz_to_euler(xyz)
+        yaw, pitch = np.degrees(yaw.cpu().numpy()), np.degrees(pitch.cpu().numpy())
+        tile_mask = None if tile_mask is None else tile_mask.cpu().numpy()
+
+    fh = open(args.out, "w") if args.out else sys.stdout
+    try:
+        for i, row in enumerate(rows):
+            row["yaw_deg"] = [round(float(v), 3) for v in yaw[i]]
+            row["pitch_deg"] = [round(float(v), 3) for v in pitch[i]]
+            if k_peers:
+                row["peers_used"] = (group_used[row["video"]] if args.peer_group
+                                     else int(peer_masks[i].sum()))
+            fetch = None
+            if tile_mask is not None:
+                fetch = np.any(tile_mask[i], axis=0)
+            elif fetch_union is not None:
+                fetch = fetch_union[i]
+            if fetch is not None:
+                row["prefetch_tiles"] = np.nonzero(fetch)[0].tolist()
+                row["grid"] = f"{args.tile_rows}x{args.tile_cols}"
+            fh.write(json.dumps(row) + "\n")
+    finally:
+        if args.out:
+            fh.close()
+            print(f"wrote {len(rows)} predictions → {args.out}", file=sys.stderr)
+
+
+def cmd_serve_daemon(args):
+    """Online serving: dynamic batching, sessions and tile prefetch over
+    TCP (``serving.serve_daemon``), params from a checkpoint or a flat
+    `export` npz."""
+    from . import serving
+    from .models import get_family
+    from .ops.fused_lstm import exact_f32_matmul
+
+    if args.data_parallel:
+        raise SystemExit("not ported yet: serve-daemon --data-parallel: ROADMAP.md, slice 'parallelism'")
+    gwarm = None
+    if args.grouped_warmup:
+        # checked before the params load
+        try:
+            gwarm = [tuple(int(v) for v in part.lower().split("x")) for part in args.grouped_warmup.split(",")]
+            if any(len(p) != 2 or p[0] < 1 or p[1] < 1 for p in gwarm):
+                raise ValueError
+        except ValueError:
+            raise SystemExit(
+                f"--grouped-warmup wants 'ROWSxGROUPS[,...]' with "
+                f"positive integers, got {args.grouped_warmup!r}"
+            ) from None
+    cfg = _preset_cfg(args)
+    fam = get_family(cfg.model_family)
+    device = _device(args.device)
+    exact_f32_matmul()
+    params = _serving_params(args, cfg, fam, device)
+    server = serving.serve_daemon(
+        params, cfg, fam, device=device, host=args.host, port=args.port, max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms, with_tiles=not args.no_tiles, tile_rows=args.tile_rows,
+        tile_cols=args.tile_cols, fov_deg=args.fov, impl=args.impl, pipeline_depth=args.pipeline_depth,
+        grouped_warmup=gwarm,
+    )
+    print(json.dumps({
+        "listening": f"{args.host}:{server.server_address[1]}", "preset": cfg.name,
+        "h_in": cfg.model.h_in, "h_out": cfg.model.h_out, "extras": sorted(server.batcher.extra_specs),
+        "max_batch": args.max_batch,
+    }), flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.stop()
+        print(json.dumps(server.batcher.stats()), file=sys.stderr)
+
+
 def main(argv=None):
     args = _build_parser().parse_args(argv)
     {
         "presets": cmd_presets, "serve-bench": cmd_serve_bench,
         "train": cmd_train, "eval": cmd_eval, "prepare-data": cmd_prepare_data,
-        "extract-features": cmd_extract_features,
+        "extract-features": cmd_extract_features, "export": cmd_export,
+        "predict": cmd_predict, "serve-daemon": cmd_serve_daemon,
     }[args.cmd](args)

@@ -207,6 +207,19 @@ __global__ void __launch_bounds__(512)
   }
 }
 
+// The f32 peer context with its staging of h in device memory (geo.h_glob):
+// one viewer's rows past what a block's shared memory holds beside z (at
+// C = 128, from 208 rows). A kernel of its own, so that peer_context_kernel
+// keeps its staging addressed as shared memory and its registers.
+__global__ void __launch_bounds__(512)
+    peer_context_glob_kernel(const float* __restrict__ pxs, const float* __restrict__ pwt, float* __restrict__ ctx,
+                             const Weights<float> wts, int B, int K, int T, int D, int C, int RV,
+                             const lstm_mma::Geom geo) {
+  const long long p0 = (long long)blockIdx.x * RV * K;
+  lstm_mma::encoder<lstm_mma::Tf32Mma, 2, true, void, true>(pxs, pwt, ctx, reinterpret_cast<const uint4*>(wts.w_enc[0]),
+                                                            wts.b_enc, p0, B * K, RV * K, T, D, C, 1, K, RV, B, geo);
+}
+
 // Both tiers are lstm_mma.cuh's encoder (every layer's W packed in
 // wts.w_enc[0], one array; the block's shape in geo): the f32 tier on
 // three-pass TF32 in 32 x 8 tiles of up to 16 warps, W streamed, returning
@@ -267,12 +280,13 @@ static bool takes_block(int rp, int mt, int warps, int w_res, bool step_ctx) {
 // the kernels do not take.
 template <typename P>
 static long long mma_smem(bool peer, int rp, int rows, int d, int hidden, int layers, int mt, int warps,
-                          int w_res, const void* c_glob) {
+                          int w_res, const void* c_glob, const void* h_glob = nullptr) {
   if (!takes_block<P>(rp, mt, warps, w_res, false) || rows < 1 || rows > rp || hidden < 32 || hidden % 32 || d < 1 ||
       layers < 1 ||
       layers > MAX_LAYERS)
     return -1;
-  const long long s = lstm_mma::smem_bytes<P>(peer, rp, rows, d, hidden, layers, w_res, c_glob == nullptr);
+  const long long s =
+      lstm_mma::smem_bytes<P>(peer, rp, rows, d, hidden, layers, w_res, c_glob == nullptr, h_glob == nullptr);
   return s > lstm_mma::SMEM_LIMIT ? -1 : s;
 }
 
@@ -399,9 +413,9 @@ long long fused_serve_tf32_smem_bytes(int rows, int d, int ctx_dim, int hidden, 
 
 // The dynamic shared memory of a peer-context block at the given shape
 // (lstm_mma::smem_bytes of the tier), bytes
-long long peer_context_smem_bytes(int rp, int rows, int d, int ctx_dim, int w_res, int c_smem, int bf16) {
-  return bf16 ? lstm_mma::smem_bytes<lstm_mma::Bf16Mma>(true, rp, rows, d, ctx_dim, 1, w_res, c_smem)
-              : lstm_mma::smem_bytes<lstm_mma::Tf32Mma>(true, rp, rows, d, ctx_dim, 1, w_res, c_smem);
+long long peer_context_smem_bytes(int rp, int rows, int d, int ctx_dim, int w_res, int c_smem, int bf16, int h_smem) {
+  return bf16 ? lstm_mma::smem_bytes<lstm_mma::Bf16Mma>(true, rp, rows, d, ctx_dim, 1, w_res, c_smem, h_smem)
+              : lstm_mma::smem_bytes<lstm_mma::Tf32Mma>(true, rp, rows, d, ctx_dim, 1, w_res, c_smem, h_smem);
 }
 
 // The peer context of the lockstep tier: pxs (batch·n_peers, t_len, d), pwt
@@ -410,28 +424,31 @@ long long peer_context_smem_bytes(int rp, int rows, int d, int ctx_dim, int w_re
 // (batch, t_len, ctx_dim). rows_v viewers a block, their rows padded to rp
 // in tiles of 16·mt, `warps` warps, W resident in shared memory (w_res) or
 // streamed, c in shared memory or, where c_glob is given, in c_glob (grid x
-// rp x ctx_dim floats; lstm_mma.cuh).
+// rp x ctx_dim floats), the staging of h in shared memory or, where h_glob is
+// given, in h_glob (grid x rows_v·n_peers x ctx_dim floats; lstm_mma.cuh).
 int peer_context_launch(const void* pxs, const void* pwt, void* ctx,
                         const void* w, const void* b, int batch, int n_peers,
                         int t_len, int d, int ctx_dim, int rows_v, int bf16,
                         int rp, int mt, int warps, int w_res, void* c_glob,
-                        void* stream) {
+                        void* h_glob, void* stream) {
   if (n_peers < 1 || rows_v < 1 || batch < 1 || t_len < 1 ||
       (long long)batch * n_peers * t_len >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const int rows = rows_v * n_peers, grid = (batch + rows_v - 1) / rows_v;
-  const lstm_mma::Geom geo{rp, mt, w_res, static_cast<float*>(c_glob)};
-#define PEER(CT, P)                                                                                              \
+  const lstm_mma::Geom geo{rp, mt, w_res, static_cast<float*>(c_glob), static_cast<float*>(h_glob)};
+#define PEER(KERNEL, CT, P)                                                                                      \
   do {                                                                                                           \
-    const long long smem = mma_smem<P>(true, rp, rows, d, ctx_dim, 1, mt, warps, w_res, c_glob);                 \
+    const long long smem = mma_smem<P>(true, rp, rows, d, ctx_dim, 1, mt, warps, w_res, c_glob, h_glob);         \
     if (smem < 0) return (int)cudaErrorInvalidValue;                                                             \
-    return launch(peer_context_kernel<CT>, grid, 32 * warps, (size_t)smem, stream, static_cast<const float*>(pxs), \
+    return launch(KERNEL, grid, 32 * warps, (size_t)smem, stream, static_cast<const float*>(pxs),                \
                   static_cast<const float*>(pwt), static_cast<float*>(ctx),                                      \
                   weights<CT>(&w, &b, nullptr, nullptr, nullptr, nullptr, 1), batch, n_peers, t_len, d, ctx_dim, \
                   rows_v, geo);                                                                                  \
   } while (0)
-  if (bf16) PEER(__nv_bfloat16, lstm_mma::Bf16Mma);
-  PEER(float, lstm_mma::Tf32Mma);
+  if (bf16 && h_glob) return (int)cudaErrorInvalidValue;  // the bf16 tier stages h in shared memory
+  if (bf16) PEER(peer_context_kernel<__nv_bfloat16>, __nv_bfloat16, lstm_mma::Bf16Mma);
+  if (h_glob) PEER(peer_context_glob_kernel, float, lstm_mma::Tf32Mma);
+  PEER(peer_context_kernel<float>, float, lstm_mma::Tf32Mma);
 #undef PEER
 }
 

@@ -138,6 +138,21 @@ __global__ void __launch_bounds__(512)
   lstm_mma::encoder<P, MT, true, RT>(pxs, pwt, ctx, w, bias, p0, B * K, RV * K, T, D, C, 1, K, RV, B, geo, php, pcp);
 }
 
+// The f32 peer forward with its staging of h in device memory (geo.h_glob),
+// as fused_serve.cu's peer_context_glob_kernel: a kernel of its own, so that
+// align_peer_fwd_kernel keeps its staging in shared memory.
+template <typename RT>
+__global__ void __launch_bounds__(512)
+    align_peer_fwd_glob_kernel(const float* __restrict__ pxs, const float* __restrict__ pwt,
+                               float* __restrict__ ctx, const uint4* __restrict__ w, const float* __restrict__ bp,
+                               RT* __restrict__ php, RT* __restrict__ pcp, int B, int K, int T, int D, int C, int RV,
+                               const lstm_mma::Geom geo) {
+  const float* bias[1] = {bp};
+  const long long p0 = (long long)blockIdx.x * RV * K;
+  lstm_mma::encoder<lstm_mma::Tf32Mma, 2, true, RT, true>(pxs, pwt, ctx, w, bias, p0, B * K, RV * K, T, D, C, 1, K,
+                                                          RV, B, geo, php, pcp);
+}
+
 // ---------------------------------------------------------------------------
 // peer backward recurrence
 // ---------------------------------------------------------------------------
@@ -591,18 +606,20 @@ extern "C" {
 // The peer forward's dynamic shared memory (lstm_mma::smem_bytes) in the
 // tier (cbf16: bf16) at a block of rp rows in tiles of 16·mt, rows_v·n_peers
 // real ones, `warps` warps, W resident (w_res) or streamed, c in shared
-// memory (c_smem) or device memory; -1 for a block it does not take (f32:
+// memory (c_smem) or device memory, the staging of h in shared memory (h_smem)
+// or device memory; -1 for a block it does not take (f32:
 // 32-row tiles, W streamed; bf16: 32- or 16-row tiles; ctx_dim 32, 64, 96
 // or 128; at most 16 warps).
 long long align_peer_fwd_smem(int d, int ctx_dim, int n_peers, int rows_v, int rp, int mt, int warps, int w_res,
-                              int c_smem, int cbf16) {
+                              int c_smem, int cbf16, int h_smem) {
   const int rows = rows_v * n_peers;
   const bool tiles = cbf16 ? mt == 1 || mt == 2 : mt == 2 && !w_res;
   if (!tiles || d < 1 || d > 8 || ctx_dim < 32 || ctx_dim > 128 || ctx_dim % 32 || n_peers < 1 || rows_v < 1 ||
       rows > rp || rp % (16 * mt) || warps < 1 || warps > 16)
     return -1;
-  const long long s = cbf16 ? lstm_mma::smem_bytes<lstm_mma::Bf16Mma>(true, rp, rows, d, ctx_dim, 1, w_res, c_smem)
-                            : lstm_mma::smem_bytes<lstm_mma::Tf32Mma>(true, rp, rows, d, ctx_dim, 1, w_res, c_smem);
+  const long long s =
+      cbf16 ? lstm_mma::smem_bytes<lstm_mma::Bf16Mma>(true, rp, rows, d, ctx_dim, 1, w_res, c_smem, h_smem)
+            : lstm_mma::smem_bytes<lstm_mma::Tf32Mma>(true, rp, rows, d, ctx_dim, 1, w_res, c_smem, h_smem);
   return s > lstm_mma::SMEM_LIMIT ? -1 : s;
 }
 
@@ -612,24 +629,27 @@ long long align_peer_fwd_smem(int d, int ctx_dim, int n_peers, int rows_v, int r
 // (batch·n_peers, t_len, ctx_dim) residual type (bf16: bf16), ctx (batch,
 // t_len, ctx_dim) f32. The block: rows_v viewers in rp rows, tiles of 16·mt
 // rows, `warps` warps, W resident (w_res) or streamed, c in shared memory or,
-// where c_glob is given, in c_glob (grid x rp x ctx_dim floats).
+// where c_glob is given, in c_glob (grid x rp x ctx_dim floats), the staging
+// of h in shared memory or, where h_glob is given, in h_glob (grid x
+// rows_v·n_peers x ctx_dim floats).
 int align_peer_fwd(const void* pxs, const void* pwt, const void* w, const void* bp, void* php, void* pcp, void* ctx,
-                   void* c_glob, int batch, int n_peers, int t_len, int d, int ctx_dim, int rows_v, int rp, int mt,
-                   int warps, int w_res, int bf16, int cbf16, void* stream) {
+                   void* c_glob, void* h_glob, int batch, int n_peers, int t_len, int d, int ctx_dim, int rows_v,
+                   int rp, int mt, int warps, int w_res, int bf16, int cbf16, void* stream) {
   const long long smem = align_peer_fwd_smem(d, ctx_dim, n_peers, rows_v, rp, mt, warps, w_res, c_glob == nullptr,
-                                             cbf16);
-  if (smem < 0 || batch < 1 || t_len < 1 || (long long)batch * n_peers * t_len >= (1LL << 31))
+                                             cbf16, h_glob == nullptr);
+  if (smem < 0 || batch < 1 || t_len < 1 || (long long)batch * n_peers * t_len >= (1LL << 31) || (cbf16 && h_glob))
     return (int)cudaErrorInvalidValue;
   const int grid = (batch + rows_v - 1) / rows_v;
-  const lstm_mma::Geom geo{rp, mt, w_res, static_cast<float*>(c_glob)};
+  const lstm_mma::Geom geo{rp, mt, w_res, static_cast<float*>(c_glob), static_cast<float*>(h_glob)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float *x = static_cast<const float*>(pxs), *pw = static_cast<const float*>(pwt),
               *b = static_cast<const float*>(bp);
   const uint4* wp = static_cast<const uint4*>(w);
   float* out = static_cast<float*>(ctx);
-#define PEER_FWD(RT, P, MT)                                                                                       \
-  launch_with_smem(align_peer_fwd_kernel<RT, P, MT>, grid, 32 * warps, (size_t)smem, st, x, pw, out, wp, b,     \
-                   static_cast<RT*>(php), static_cast<RT*>(pcp), batch, n_peers, t_len, d, ctx_dim, rows_v, geo)
+#define PEER_KERNEL(KERNEL, RT)                                                                                   \
+  launch_with_smem(KERNEL, grid, 32 * warps, (size_t)smem, st, x, pw, out, wp, b, static_cast<RT*>(php),        \
+                   static_cast<RT*>(pcp), batch, n_peers, t_len, d, ctx_dim, rows_v, geo)
+#define PEER_FWD(RT, P, MT) PEER_KERNEL((align_peer_fwd_kernel<RT, P, MT>), RT)
   using BF = __nv_bfloat16;
   using lstm_mma::Bf16Mma;
   using lstm_mma::Tf32Mma;
@@ -637,8 +657,12 @@ int align_peer_fwd(const void* pxs, const void* pwt, const void* w, const void* 
     if (bf16) return mt == 2 ? PEER_FWD(BF, Bf16Mma, 2) : PEER_FWD(BF, Bf16Mma, 1);
     return mt == 2 ? PEER_FWD(float, Bf16Mma, 2) : PEER_FWD(float, Bf16Mma, 1);
   }
+  if (h_glob)
+    return bf16 ? PEER_KERNEL(align_peer_fwd_glob_kernel<BF>, BF)
+                : PEER_KERNEL(align_peer_fwd_glob_kernel<float>, float);
   return bf16 ? PEER_FWD(BF, Tf32Mma, 2) : PEER_FWD(float, Tf32Mma, 2);
 #undef PEER_FWD
+#undef PEER_KERNEL
 }
 
 // The decoder's recurrences with a per-step context: ctx and dctx (batch,

@@ -72,6 +72,11 @@
 //     by row so the lanes' float2 stores fall on distinct banks; ctx_t[v] =
 //     Σ_k w_k · h_k (k = 0 .. K - 1 in order, each product and sum rounded
 //     to nearest, as the plain version computes them) is summed from it.
+//     A block holds one viewer's K = 1..256 peers; where the f32 z and the
+//     staging of that many rows do not fit a block together (from 208 rows
+//     of C = 128: 275 KB at 256), the staging lives in device memory
+//     (Geom::h_glob, L2-resident), written by the cells and read back after
+//     the barrier.
 //   * fused_encode writes the top-layer h from z: rounded in bf16, the f32 h
 //     in f32.
 // The three-pass TF32 product (product_tf32): an f32 operand x is split into
@@ -127,10 +132,13 @@ constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a Hopper block may 
 // peer_tc_rows, serve_tc_rows; peer_tf32_rows, serve_tf32_rows): rp rows
 // padded to whole tiles of 16·mt rows; W resident in
 // shared memory or streamed; c in shared memory, or in c_glob (grid x layers
-// x rp x H floats) where it does not fit.
+// x rp x H floats) where it does not fit; the peer context's staging of the
+// f32 h in shared memory, or in h_glob (grid x rows x H floats) where it does
+// not fit beside z (the f32 tier from 208 peer rows of C = 128).
 struct Geom {
   int rp, mt, w_res;
   float* c_glob;
+  float* h_glob = nullptr;
 };
 
 template <int MT, int UT_ = 4 / MT>
@@ -207,15 +215,16 @@ __host__ __device__ inline long long w_u4(int d, int h, int layers) {
 
 // Shared memory of a block, in this order: W (when resident), c (when in
 // shared memory), z, the staging buffer (peer: the f32 h of the `rows` real
-// rows; encode: E rows of H + 8), and the peer weights of the rows.
+// rows, when in shared memory; encode: E rows of H + 8), and the peer weights
+// of the rows.
 template <typename P = Bf16Mma>
 __host__ __device__ inline long long smem_bytes(bool peer, int rp, int rows, int d, int h, int layers, bool w_res,
-                                                bool c_smem) {
+                                                bool c_smem, bool h_smem = true) {
   constexpr int e = sizeof(typename P::E);
   long long s = w_res ? 16 * w_u4<P>(d, h, layers) : 0;
   s += c_smem ? 4LL * layers * rp * h : 0;
   s += (long long)e * rp * ldz_of<P>(d, h, layers);
-  s += peer ? 4LL * rows * h + (4LL * rows + 15) / 16 * 16 : (long long)e * rp * (h + 8);
+  s += peer ? (h_smem ? 4LL * rows * h : 0) + (4LL * rows + 15) / 16 * 16 : (long long)e * rp * (h + 8);
   return s;
 }
 
@@ -463,7 +472,11 @@ __device__ __forceinline__ void cell(const float (&acc)[MT][UT][4][4], int r0, i
 // (from the staging) and c (from the lanes' slots) into php and pcp (nrows,
 // T, H) in RT, 16-byte pieces along whole rows, during the publish
 // (ops/lstm_align.py peer_fwd).
-template <typename P, int MT, bool PEER, typename RT = void>
+// HG (PEER only): the staging in geo.h_glob, not in shared memory; a template
+// parameter, so that the shared-memory instance addresses its staging as
+// shared (a pointer chosen at run time compiles to generic loads and stores:
+// 1-3 % slower at K = 7).
+template <typename P, int MT, bool PEER, typename RT = void, bool HG = false>
 __device__ __forceinline__ void encoder(const float* __restrict__ xs, const float* __restrict__ pwt,
                                         float* __restrict__ out, const uint4* __restrict__ wg,
                                         const float* const* bias, long long p0, int nrows, int rows, int T,
@@ -473,6 +486,7 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
   using E = typename P::E;
   constexpr bool RES = !std::is_void<RT>::value;
   static_assert(PEER || !RES, "residual stores are the lockstep peer forward's");
+  static_assert(PEER || !HG, "only the peer context stages h in device memory");
   extern __shared__ float4 smem4[];
   const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
   const int rp = geo.rp, kx = kx_of<P>(D), ldz = ldz_of<P>(D, H, L);
@@ -498,10 +512,11 @@ __device__ __forceinline__ void encoder(const float* __restrict__ xs, const floa
   }
   E* z = reinterpret_cast<E*>(sp);
   sp += sizeof(E) * rp * ldz;
-  float* hst = reinterpret_cast<float*>(sp);  // PEER: f32 h of the real rows, swizzled
-  E* est = reinterpret_cast<E*>(sp);          // else: h in E, rows of H + 8
+  // PEER: f32 h of the real rows, swizzled, in shared memory or (HG) in h_glob
+  float* hst = HG ? geo.h_glob + (size_t)blockIdx.x * rows * H : reinterpret_cast<float*>(sp);
+  E* est = reinterpret_cast<E*>(sp);  // else: h in E, rows of H + 8
   const int lde = H + 8;
-  float* wrow = reinterpret_cast<float*>(sp + (size_t)4 * rows * H);  // PEER: w of the rows
+  float* wrow = reinterpret_cast<float*>(sp + (HG ? 0 : (size_t)4 * rows * H));  // PEER: w of the rows
 
   for (int i = tid; i < L * rp * H / 4; i += nthr) cm[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   for (int i = tid; i < rp * ldz * (int)sizeof(E) / 16; i += nthr)

@@ -13,10 +13,12 @@ device of their input.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = [
     "euler_to_xyz",
+    "euler_to_xyz_np",
     "xyz_to_euler",
     "normalize_sphere",
     "wrap_angle",
@@ -38,6 +40,15 @@ def euler_to_xyz(yaw, pitch):
     return torch.stack(
         [cp * torch.cos(yaw), cp * torch.sin(yaw), torch.sin(pitch)], dim=-1
     )
+
+
+def euler_to_xyz_np(yaw, pitch):
+    """Host-side numpy twin of :func:`euler_to_xyz`, f32, for per-request
+    paths that must not touch the device (the serving daemon's sessions)."""
+    cp = np.cos(pitch)
+    return np.stack(
+        [cp * np.cos(yaw), cp * np.sin(yaw), np.sin(pitch)], axis=-1
+    ).astype(np.float32)
 
 
 def xyz_to_euler(v):

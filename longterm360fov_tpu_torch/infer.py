@@ -11,6 +11,7 @@ step in PyTorch.
 from __future__ import annotations
 
 import math
+import types
 from typing import Callable, Dict
 
 import torch
@@ -18,9 +19,12 @@ import torch
 from . import geometry, windows
 from .config import ExperimentConfig
 from .models import get_family
+from .params import params_device
 
 __all__ = [
     "predict_xyz",
+    "predict_batch",
+    "predict_euler",
     "make_predict_fn",
     "tile_centers",
     "tiles_for_fov",
@@ -51,6 +55,55 @@ def predict_xyz(params, cfg: ExperimentConfig, fam, batch: Dict, *, impl: str):
     else:
         pred_n = fam.apply(params, cfg.model, past_n, None, **kwargs)
     return windows.denormalize_window(pred_n, anchor, to_sphere=True)
+
+
+def default_extras_ref():
+    from .train import default_extras
+
+    return default_extras
+
+
+def _forward(params, cfg: ExperimentConfig, apply_fn, batch, extras_fn=None, impl: str = "plain"):
+    """Shared decode core of :func:`predict_batch` and :func:`predict_euler`:
+    raw past windows (+ family extras) → predicted xyz on the sphere, through
+    :func:`predict_xyz` with ``apply_fn`` as the plain forward, ``extras_fn``
+    (else ``train.default_extras``) as the batch hook and, for ``"fused"``,
+    the family's ``serve_fused``. ``batch`` is {"past": (B, H_in, 3), ...
+    extras}, arrays or tensors, moved to the device of the params."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    device = params_device(params)
+    fam = types.SimpleNamespace(
+        apply=apply_fn, batch_extras=extras_fn or default_extras_ref(),
+        serve_fused=getattr(get_family(cfg.model_family), "serve_fused", None),
+    )
+    batch = {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in batch.items() if v is not None}
+    return predict_xyz(params, cfg, fam, batch, impl=impl)
+
+
+def _as_batch(past_or_batch, context=None):
+    if isinstance(past_or_batch, dict):
+        return past_or_batch
+    b = {"past": past_or_batch}
+    if context is not None:
+        b["context"] = context
+    return b
+
+
+@torch.inference_mode()
+def predict_batch(params, cfg: ExperimentConfig, apply_fn, past, context=None, extras_fn=None, *,
+                  impl: str = "plain"):
+    """(B, H_in, 3) raw xyz windows (or a batch dict with family extras)
+    → (B, H_out, 3) predicted unit vectors, on the device of the params."""
+    return _forward(params, cfg, apply_fn, _as_batch(past, context), extras_fn, impl)
+
+
+@torch.inference_mode()
+def predict_euler(params, cfg: ExperimentConfig, apply_fn, past, context=None, extras_fn=None, *,
+                  impl: str = "plain"):
+    """Raw past windows → predicted (yaw, pitch) each (B, H_out), radians —
+    the reference's output format for the streaming server."""
+    return geometry.xyz_to_euler(_forward(params, cfg, apply_fn, _as_batch(past, context), extras_fn, impl))
 
 
 def make_predict_fn(

@@ -391,8 +391,9 @@ class TcGeom(NamedTuple):
     encoder and the serve kernel: 0), ``rp`` rows in warp tiles of
     16·``mt`` rows x 32 / ``mt`` units, ``warps`` warps, the packed W
     resident in shared memory (``w_res``) or streamed from L2, c in shared
-    memory (``c_smem``) or in device memory, and the block's dynamic shared
-    memory in bytes."""
+    memory (``c_smem``) or in device memory, the block's dynamic shared
+    memory in bytes, and the peer context's staging of the f32 h in shared
+    memory (``h_smem``) or in device memory."""
     rows_v: int
     rp: int
     mt: int
@@ -400,6 +401,7 @@ class TcGeom(NamedTuple):
     w_res: bool
     c_smem: bool
     smem: int
+    h_smem: bool = True
 
 
 _TC_MAX_WARPS = 16  # the bf16 encoders' __launch_bounds__(512): 128 registers a thread
@@ -414,17 +416,19 @@ def _tier(f32: bool):
 
 
 def _tc_smem(peer: bool, rp: int, rows: int, d: int, hidden: int, layers: int, w_res: bool, c_smem: bool,
-             f32: bool = False) -> int:
+             f32: bool = False, h_smem: bool = True) -> int:
     """``lstm_mma::smem_bytes``: W (when resident), c (when in shared
     memory), z ([x padded to a k-step, h of every layer] a row, a 16-byte
     pad more; bf16 or, ``f32``, f32), and the staging (the peer context:
-    f32 h of the ``rows`` real rows and their weights; the encoder: rows of
-    H + 8)."""
+    f32 h of the ``rows`` real rows, when ``h_smem``, and their weights; the
+    encoder: rows of H + 8)."""
     e, ks, pad = _tier(f32)
     kx = -(-d // ks) * ks
     w = sum(((kx if l == 0 else hidden) + hidden) * 4 * hidden * e for l in range(layers))
     s = (w if w_res else 0) + (4 * layers * rp * hidden if c_smem else 0) + e * rp * (kx + layers * hidden + pad)
-    return s + (4 * rows * hidden + -(-4 * rows // 16) * 16 if peer else e * rp * (hidden + 8))
+    if peer:
+        return s + (4 * rows * hidden if h_smem else 0) + -(-4 * rows // 16) * 16
+    return s + e * rp * (hidden + 8)
 
 
 # the layouts of a block, (W resident, c in shared memory), in the order
@@ -602,31 +606,43 @@ def serve_tf32_rows(hidden: int, layers: int, d: int, ctx_dim: int = 0, step_ctx
     )
 
 
+# the layouts of an f32 peer context block, (c in shared memory, the staging of
+# h in shared memory), in the order they are preferred
+_TF32_PEER_LAYOUTS = ((True, True), (False, True), (True, False), (False, False))
+_MAX_PEERS = _TC_MAX_ROWS  # a viewer's K peers in one block of at most 256 rows
+
+
 def peer_tf32_rows(ctx_dim: int, n_peers: int, d: int, *, rows: int = 0) -> TcGeom:
     """The block of the f32 peer context on three-pass TF32
     (``csrc/lstm_mma.cuh`` encoder with Tf32Mma): all K peers of
     ``rows_v`` viewers, padded up to whole 32-row tiles, the most viewers
-    up to :func:`_tc_top` rows (``rows`` = 32: one tile), c in shared
-    memory where it fits; W streams from L2. Raises for shapes the kernel
-    does not take: ctx_dim not one of 32, 64, 96, 128, or more than 8
-    peers."""
+    up to :func:`_tc_top` rows (``rows`` = 32: one tile), and past that as
+    many rows as one viewer's K peers need (K = 65..256: 96 to 256 rows);
+    in the first layout of ``_TF32_PEER_LAYOUTS`` that fits: c in shared
+    memory where it fits, else in device memory, and the staging of the f32
+    h likewise (at C = 128: c from 129 rows, the staging from 208); W streams
+    from L2. Raises for shapes the kernel does not take: ctx_dim not one of
+    32, 64, 96, 128, K outside 1..256, or one viewer's block past a block's
+    shared memory with c and the staging in device memory."""
     if ctx_dim not in (32, 64, 96, 128):
         raise ValueError(f"the f32 peer context takes ctx_dim 32, 64, 96 or 128, got {ctx_dim}")
-    if not 1 <= n_peers <= 8:
-        raise ValueError(f"the f32 peer context holds all K peers of a viewer in a block: it takes K = 1..8 peers, "
-                         f"K = {n_peers} peers is more than it takes")
+    if not 1 <= n_peers <= _MAX_PEERS:
+        raise ValueError(f"the f32 peer context holds all K peers of a viewer in one block of at most "
+                         f"{_MAX_PEERS} rows: K = {n_peers} peers is more than it takes")
     if rows not in (0, 32):
         raise ValueError(f"the f32 peer context picks its own blocks, or 32 rows, got {rows}")
     top = 32 if rows else _tc_top(ctx_dim) // 32 * 32
-    for rv in range(top // n_peers, 0, -1):
+    for rv in range(max(1, top // n_peers), 0, -1):
         rp = -(-rv * n_peers // 32) * 32
-        for c_smem in (True, False):
-            smem = _tc_smem(True, rp, rv * n_peers, d, ctx_dim, 1, False, c_smem, f32=True)
+        for c_smem, h_smem in _TF32_PEER_LAYOUTS:
+            smem = _tc_smem(True, rp, rv * n_peers, d, ctx_dim, 1, False, c_smem, f32=True, h_smem=h_smem)
             if smem <= _SMEM_LIMIT:
-                return _tf32_geom(rv, rp, ctx_dim, c_smem, smem)
+                return _tf32_geom(rv, rp, ctx_dim, c_smem, smem)._replace(h_smem=h_smem)
+    rp = -(-n_peers // 32) * 32
     raise ValueError(f"d={d}, ctx_dim={ctx_dim}: one viewer's K = {n_peers} peers need "
-                     f"{_tc_smem(True, 32, n_peers, d, ctx_dim, 1, False, False, f32=True)} bytes of shared "
-                     f"memory in the f32 peer context's block, more than {_SMEM_LIMIT}")
+                     f"{_tc_smem(True, rp, n_peers, d, ctx_dim, 1, False, False, f32=True, h_smem=False)} bytes "
+                     f"of shared memory in the f32 peer context's block of {rp} rows, with c and the staging in "
+                     f"device memory, more than {_SMEM_LIMIT}")
 
 
 def encode_tf32_rows(hidden: int, layers: int, d: int) -> TcGeom:
@@ -756,6 +772,21 @@ def peer_context(peer_params: LSTMParams, peer_xs: torch.Tensor,
     return out
 
 
+def peer_scratch(geo: TcGeom, batch: int, n_peers: int, ctx_dim: int, device):
+    """The device memory of a peer block that does not keep c or the staging
+    of h in shared memory (None where it does): c (grid x rp x C floats)
+    and the staging (grid x rows_v·K x C floats), a grid of one block per
+    ``rows_v`` viewers."""
+    grid = -(-batch // geo.rows_v)
+    c_glob = None if geo.c_smem else torch.empty(grid * geo.rp * ctx_dim, device=device)
+    h_glob = None if geo.h_smem else torch.empty(grid * geo.rows_v * n_peers * ctx_dim, device=device)
+    return c_glob, h_glob
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def launch_peer_context(lib, peer_params: LSTMParams, peer_xs, peer_w, compute_dtype) -> torch.Tensor:
     """Launch the peer-context kernel of ``lib`` (a build of
     ``csrc/fused_serve.cu``: the kernels' own, or a probe build) on checked
@@ -771,12 +802,12 @@ def launch_peer_context(lib, peer_params: LSTMParams, peer_xs, peer_w, compute_d
         geo, w = peer_tc_rows(c, k, d), pack_weights([peer_params], d)
     else:
         geo, w = peer_tf32_rows(c, k, d), pack_weights_tf32([peer_params], d)
-    c_glob = None if geo.c_smem else torch.empty(-(-batch // geo.rows_v) * geo.rp * c, device=peer_xs.device)
+    c_glob, h_glob = peer_scratch(geo, batch, k, c, peer_xs.device)
     with torch.cuda.device(peer_xs.device):
         err = lib.peer_context_launch(
             peer_xs.data_ptr(), peer_w.data_ptr(), out.data_ptr(), w.data_ptr(), peer_params.b.data_ptr(),
             batch, k, t_len, d, c, geo.rows_v, int(compute_dtype == torch.bfloat16), geo.rp, geo.mt, geo.warps,
-            int(geo.w_res), None if c_glob is None else c_glob.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            int(geo.w_res), _ptr(c_glob), _ptr(h_glob), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "peer_context")
     return out
@@ -1147,11 +1178,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_serve_smem_bytes.argtypes = [i32] * 8
     lib.fused_serve_smem_bytes.restype = ctypes.c_longlong
     lib.fused_encode_launch.argtypes = [vp, vp, arr, arr] + [i32] * 10 + [vp, vp]
-    lib.peer_context_launch.argtypes = [vp] * 5 + [i32] * 11 + [vp, vp]
+    lib.peer_context_launch.argtypes = [vp] * 5 + [i32] * 11 + [vp, vp, vp]
     lib.fused_decode_f32.argtypes = [vp] * 5 + [arr, arr, vp, vp] + [i32] * 10 + [vp, vp]
     lib.fused_serve_tf32_smem_bytes.argtypes = [i32] * 8
     lib.fused_serve_tf32_smem_bytes.restype = ctypes.c_longlong
-    lib.peer_context_smem_bytes.argtypes = [i32] * 7
+    lib.peer_context_smem_bytes.argtypes = [i32] * 8
     lib.peer_context_smem_bytes.restype = ctypes.c_longlong
     lib.fused_encode_smem_bytes.argtypes = [i32] * 7
     lib.fused_encode_smem_bytes.restype = ctypes.c_longlong

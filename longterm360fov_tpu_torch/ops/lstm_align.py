@@ -53,7 +53,7 @@ import torch
 
 from ..models.cell import LSTMParams, lstm_cell, mm
 from . import _build, lstm_ss
-from .fused_lstm import TcGeom, pack_weights, pack_weights_tf32, peer_tc_rows, peer_tf32_rows
+from .fused_lstm import TcGeom, pack_weights, pack_weights_tf32, peer_scratch, peer_tc_rows, peer_tf32_rows
 from .lstm_train import (
     RESIDUAL_DTYPES,
     Residuals,
@@ -302,7 +302,7 @@ def peer_fwd_block(c_dim: int, n_peers: int, d: int, compute_dtype=torch.float32
     16 warps; :func:`peer_tc_rows` in bf16), all K peers of whole viewers.
     Raises for shapes it does not take, those the peer backward refuses
     too: ctx_dim outside 32, 64, 96, 128, d outside 1..8, and the
-    choosers' own (f32: K = 1..8)."""
+    choosers' own (K = 1..256)."""
     if c_dim not in PEER_BWD_CTX:
         raise ValueError(f"the peer forward takes ctx_dim in {PEER_BWD_CTX}, got {c_dim}")
     if not 1 <= d <= 8:
@@ -331,13 +331,13 @@ def peer_fwd(peer_params: LSTMParams, pxs, pwt, residual_dtype=torch.float32,
     php = torch.empty((rows, t_len, c_dim), device=dev, dtype=residual_dtype)
     pcp = torch.empty_like(php)
     ctx = torch.empty((batch, t_len, c_dim), device=dev)
-    c_glob = None if geo.c_smem else torch.empty(-(-batch // geo.rows_v) * geo.rp * c_dim, device=dev)
-    _check_card([pxs, pwt, w, peer_params.b, php, pcp, ctx] + ([] if c_glob is None else [c_glob]))
+    scratch = peer_scratch(geo, batch, k, c_dim, dev)
+    _check_card([pxs, pwt, w, peer_params.b, php, pcp, ctx] + [t for t in scratch if t is not None])
     with torch.cuda.device(dev):
         err = _library().align_peer_fwd(
             pxs.data_ptr(), pwt.data_ptr(), w.data_ptr(), peer_params.b.data_ptr(), php.data_ptr(),
-            pcp.data_ptr(), ctx.data_ptr(), None if c_glob is None else c_glob.data_ptr(), batch, k, t_len, d,
-            c_dim, geo.rows_v, geo.rp, geo.mt, geo.warps, int(geo.w_res),
+            pcp.data_ptr(), ctx.data_ptr(), *(None if t is None else t.data_ptr() for t in scratch), batch, k,
+            t_len, d, c_dim, geo.rows_v, geo.rp, geo.mt, geo.warps, int(geo.w_res),
             int(residual_dtype == torch.bfloat16), int(bf16), _stream(),
         )
     _raise_on(err, "peer_fwd")
@@ -545,8 +545,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     or one-pass build of it) with its entry points typed."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_void_p)
-    lib.align_peer_fwd.argtypes = [vp] * 8 + [i32] * 12 + [vp]
-    lib.align_peer_fwd_smem.argtypes = [i32] * 10
+    lib.align_peer_fwd.argtypes = [vp] * 9 + [i32] * 12 + [vp]
+    lib.align_peer_fwd_smem.argtypes = [i32] * 11
     lib.align_peer_fwd_smem.restype = ctypes.c_longlong
     lib.align_dec_fwd.argtypes = lstm_ss.FWD_ARGTYPES
     lib.train_fwd_probe_read.argtypes = [vp]

@@ -16,7 +16,8 @@ import torch
 
 from .models.cell import LSTMParams
 
-__all__ = ["params_from_numpy", "array_to_tensor", "walk", "tree_leaves", "tree_unflatten", "params_device"]
+__all__ = ["params_from_numpy", "array_to_tensor", "tensor_to_array", "walk", "tree_leaves", "tree_unflatten",
+           "params_device"]
 
 
 def array_to_tensor(a, device, dtype=None) -> torch.Tensor:
@@ -32,6 +33,16 @@ def array_to_tensor(a, device, dtype=None) -> torch.Tensor:
     else:
         t = torch.from_numpy(a)
     return t.to(device=device, dtype=dtype)
+
+
+def tensor_to_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor → a numpy array on the host. A bf16 tensor becomes ``|V2``
+    (its raw bits), which is how ``np.savez`` writes JAX's bf16 params and
+    how plain numpy reads them back; :func:`array_to_tensor` inverts it."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
 
 
 _SEQ2SEQ = {"encoder", "decoder", "proj"}

@@ -1,7 +1,7 @@
-"""Online serving: the device program and dynamic batching over concurrent
-viewers.
+"""Online serving: the device program, dynamic batching over concurrent
+viewers and the TCP daemon.
 
-PyTorch twin of the serve-path subset of ``longterm360fov_tpu.serving``:
+PyTorch twin of ``longterm360fov_tpu.serving``:
 
 - :func:`make_serve_fn` — the whole serve path as one callable on the
   device of the params: normalize → encode → H_out-step autoregressive
@@ -17,26 +17,39 @@ PyTorch twin of the serve-path subset of ``longterm360fov_tpu.serving``:
   sliced off before results are returned, so co-batching never changes any
   viewer's answer.
 - :func:`load_exported_params` — loads the flat dotted-key ``export`` npz
-  of the JAX package into the port's params (seq2seq, cross_user, fusion
-  and transformer trees).
+  (the JAX package's or the port's) into the port's params (seq2seq,
+  cross_user, fusion and transformer trees).
 - the grouped gateway: :func:`group_pack`, :func:`make_grouped_serve_fn`
   (each video's peer set rides to the device once; the transformer's tier
   projects its K/V once there for the decode kernel's shared tier, the
   generic tier gathers it per row, ``gfut[gid]``, for the family's serve
   path) and :func:`grouped_predict`, the host side's pack → serve →
   unsort.
+- the daemon, host-side Python copied from the JAX package:
+  :class:`ViewerSessions` (per-viewer rolling pose windows, LRU eviction),
+  :class:`PeerPool` (per-video trajectories → live peer futures), the
+  binary wire (:func:`encode_frame`, :func:`read_frame`: byte for byte the
+  JAX package's frames, so either side's client talks to either side's
+  server), :class:`FovServer` (line JSON and binary frames on one port) and
+  :class:`FovClient`, and :func:`serve_daemon`, which builds them around a
+  :class:`ParamStore` and the packed serve program. All device work runs on
+  the batcher's dispatcher thread, except grouped bulk requests, which run
+  on their handler thread behind a bounded semaphore.
 
-Not ported yet (ROADMAP.md): the TCP daemon, per-viewer pose windows,
-hot-reload ops (slice 'the TCP daemon and CLI'), and the batcher's mesh
-bucket divisor (slice 'parallelism').
+Not ported yet (ROADMAP.md): the batcher's mesh bucket divisor (slice
+'parallelism').
 """
 
 from __future__ import annotations
 
+import json
 import queue
+import socket
+import socketserver
+import struct
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -44,11 +57,18 @@ import torch
 
 from . import geometry, infer, windows
 from .models.fusion import FEATURE_DIM
-from .params import array_to_tensor, walk
+from .params import array_to_tensor, params_device, walk
 
 __all__ = [
+    "encode_frame",
+    "read_frame",
     "DynamicBatcher",
     "ParamStore",
+    "PeerPool",
+    "ViewerSessions",
+    "pose_to_xyz",
+    "FovServer",
+    "FovClient",
     "make_serve_fn",
     "extra_specs_for",
     "required_extras_for",
@@ -57,6 +77,7 @@ __all__ = [
     "group_pack",
     "make_grouped_serve_fn",
     "grouped_predict",
+    "serve_daemon",
 ]
 
 
@@ -639,14 +660,22 @@ def make_grouped_serve_fn(
     fam,
     *,
     device,
+    with_tiles: bool = True,
+    tile_rows: int = 6,
+    tile_cols: int = 12,
+    fov_deg: float = 90.0,
+    param_store: Optional[ParamStore] = None,
     packed: bool = False,
     impl: str = "fused",
 ) -> Callable:
     """Group-shared peer serving program: ``fn(past, group_future,
-    group_mask, gid) → {"yaw", "pitch", "prefetch"}`` (or, with ``packed``,
-    one (B, 2·H_out + M) tensor and ``fn.unpack``), where each video's peer
-    set reaches the device once instead of once per viewer. The prefetch
-    mask is :func:`make_serve_fn`'s default tile grid and field of view.
+    group_mask, gid) → {"yaw", "pitch"[, "prefetch"]}`` (or, with
+    ``packed``, one (B, 2·H_out[+M]) tensor and ``fn.unpack``), where each
+    video's peer set reaches the device once instead of once per viewer.
+    ``with_tiles``, ``tile_rows``, ``tile_cols``, ``fov_deg`` and
+    ``param_store`` mean what they mean in :func:`make_serve_fn`: the
+    prefetch mask, and the store the program reads its params from at every
+    call (the daemon's "reload" op swaps them).
 
     Inputs are the :func:`group_pack` layout: ``past`` (B_packed, h_in, 3)
     raw xyz, ``group_future`` (G, K, h_out, 3) raw shared peer sets in group
@@ -686,9 +715,11 @@ def make_grouped_serve_fn(
             f"serving has nothing to share; use make_serve_fn"
         )
     h_out = cfg.model.h_out
+    store = param_store if param_store is not None else ParamStore(params)
 
     @torch.inference_mode()
     def fn(past, gfut, gmask, gid):
+        params = store.params
         past, gfut, gmask = (torch.as_tensor(x, dtype=torch.float32, device=device)
                              for x in (past, gfut, gmask))
         gid = torch.as_tensor(gid, dtype=torch.long, device=device)
@@ -704,7 +735,10 @@ def make_grouped_serve_fn(
             pred_n = fam.apply(params, cfg.model, past_n, None, **kw)
         xyz = windows.denormalize_window(pred_n, anchor, to_sphere=True)
         yaw, pitch = geometry.xyz_to_euler(xyz)
-        out = {"yaw": yaw, "pitch": pitch, "prefetch": infer.tiles_for_fov(xyz).any(dim=1)}
+        out = {"yaw": yaw, "pitch": pitch}
+        if with_tiles:
+            out["prefetch"] = infer.tiles_for_fov(
+                xyz, tile_rows=tile_rows, tile_cols=tile_cols, fov_deg=fov_deg).any(dim=1)
         if packed:
             return torch.cat([v.float() for v in out.values()], dim=-1)
         return out
@@ -714,8 +748,13 @@ def make_grouped_serve_fn(
     fn.h_in = cfg.model.h_in
     fn.peer_span = h_out
     if packed:
-        fn.unpack = lambda host: {"yaw": host[..., :h_out], "pitch": host[..., h_out:2 * h_out],
-                                  "prefetch": host[..., 2 * h_out:] > 0.5}
+        def unpack(host: np.ndarray) -> Dict[str, np.ndarray]:
+            out = {"yaw": host[..., :h_out], "pitch": host[..., h_out:2 * h_out]}
+            if with_tiles:
+                out["prefetch"] = host[..., 2 * h_out:] > 0.5
+            return out
+
+        fn.unpack = unpack
     return fn
 
 
@@ -783,3 +822,835 @@ def grouped_predict(
     else:
         host = {k: v.cpu().numpy() for k, v in out.items()}
     return {k: v[inv] for k, v in host.items()}
+
+
+# --------------------------------------------------------------------------
+# per-viewer session state (host-side numpy, copied from the JAX package)
+# --------------------------------------------------------------------------
+
+
+def pose_to_xyz(pose) -> np.ndarray:
+    """[yaw, pitch] radians or [x, y, z] (renormalized) → unit xyz."""
+    pose = np.asarray(pose, np.float32)
+    if pose.shape == (2,):
+        return geometry.euler_to_xyz_np(float(pose[0]), float(pose[1]))
+    if pose.shape == (3,):
+        n = float(np.linalg.norm(pose))
+        if n < 1e-6:
+            raise ValueError("zero-norm xyz pose")
+        return pose / n
+    raise ValueError(
+        f"pose must be [yaw, pitch] or [x, y, z], got shape {pose.shape}"
+    )
+
+
+class ViewerSessions:
+    """Rolling (h_in, 3) pose windows keyed by viewer id.
+
+    ``push`` accepts a pose as xyz ([x, y, z], renormalized) or as
+    radians ([yaw, pitch]) and returns the full window once h_in poses
+    have arrived, else None. Host-side numpy only — no device traffic
+    until a window is complete. At ``max_viewers`` live sessions the
+    least-recently-active one is evicted (viewers churn; disconnected
+    clients never send "drop", so a hard table-full error would lock
+    new viewers out of a long-running daemon forever)."""
+
+    def __init__(self, h_in: int, max_viewers: int = 100_000):
+        self.h_in = int(h_in)
+        self.max_viewers = int(max_viewers)
+        self.n_evicted = 0
+        self._lock = threading.Lock()
+        self._buf: "OrderedDict[str, deque]" = OrderedDict()
+
+    def push(self, viewer: str, pose) -> Optional[np.ndarray]:
+        xyz = pose_to_xyz(pose)
+        with self._lock:
+            dq = self._buf.get(viewer)
+            if dq is None:
+                while len(self._buf) >= self.max_viewers:
+                    self._buf.popitem(last=False)  # evict LRU
+                    self.n_evicted += 1
+                dq = deque(maxlen=self.h_in)
+                self._buf[viewer] = dq
+            else:
+                self._buf.move_to_end(viewer)
+            dq.append(xyz)
+            if len(dq) < self.h_in:
+                return None
+            return np.stack(tuple(dq))
+
+    def missing(self, viewer: str) -> int:
+        with self._lock:
+            dq = self._buf.get(viewer)
+            return self.h_in - (len(dq) if dq else 0)
+
+    def drop(self, viewer: str):
+        with self._lock:
+            self._buf.pop(viewer, None)
+
+    def __len__(self):
+        with self._lock:
+            return len(self._buf)
+
+
+class PeerPool:
+    """Online cross-user context: with on-demand video, other viewers
+    watching the same title ahead of you have already traced the frames you
+    are about to see — their observed head paths over your prediction
+    horizon are the "peer futures" the cross_user and transformer families
+    condition on. This pool indexes every viewer's observed trajectory per
+    video and answers "who covers frames [t+1, t+h_out] right now?" so the
+    daemon can attach real peer context to live requests.
+
+    Host-side numpy only; bounded memory via per-viewer history caps
+    (oldest frames drop) and LRU viewer eviction per video."""
+
+    def __init__(
+        self,
+        h_out: int,
+        k: int,
+        *,
+        max_history: int = 8192,
+        max_viewers_per_video: int = 4096,
+    ):
+        self.h_out = int(h_out)
+        self.k = int(k)
+        self.max_history = int(max_history)
+        self.max_viewers_per_video = int(max_viewers_per_video)
+        self._lock = threading.Lock()
+        # video -> OrderedDict(viewer -> [start_frame, list[xyz rows]])
+        self._videos: Dict[str, "OrderedDict"] = {}
+
+    def observe(
+        self, video: str, viewer: str, frame: Optional[int], xyz: np.ndarray
+    ) -> int:
+        """Record that ``viewer`` looked at ``xyz`` on ``video``'s frame
+        ``frame`` (None = next contiguous frame). Contiguous frames
+        append; a gap or rewind restarts the viewer's history at the new
+        position (seeks are normal in VoD). Returns the frame recorded."""
+        with self._lock:
+            vid = self._videos.setdefault(video, OrderedDict())
+            ent = vid.get(viewer)
+            if ent is None:
+                while len(vid) >= self.max_viewers_per_video:
+                    vid.popitem(last=False)
+                ent = [0 if frame is None else int(frame), []]
+                vid[viewer] = ent
+            else:
+                vid.move_to_end(viewer)
+            start, rows = ent
+            frame = start + len(rows) if frame is None else int(frame)
+            if frame != start + len(rows):  # gap or rewind → restart
+                ent[0] = frame
+                rows.clear()
+            rows.append(np.asarray(xyz, np.float32))
+            if len(rows) > self.max_history:
+                drop = len(rows) - self.max_history
+                del rows[:drop]
+                ent[0] += drop
+            return frame
+
+    def peers_for(
+        self, video: str, viewer: str, frame: int
+    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Peer futures for ``viewer`` about to watch frames
+        [frame+1, frame+h_out] of ``video`` → (other_future (K, h_out, 3),
+        other_mask (K,)), or None when nobody covers the span."""
+        lo, span = int(frame) + 1, self.h_out
+        fut = np.zeros((self.k, span, 3), np.float32)
+        mask = np.zeros((self.k,), np.float32)
+        found = 0
+        with self._lock:
+            vid = self._videos.get(video)
+            if not vid:
+                return None
+            for other, (start, rows) in vid.items():
+                if other == viewer:
+                    continue
+                a = lo - start
+                if a < 0 or a + span > len(rows):
+                    continue
+                fut[found] = rows[a:a + span]
+                mask[found] = 1.0
+                found += 1
+                if found == self.k:
+                    break
+        return (fut, mask) if found else None
+
+    def stats(self) -> Dict:
+        with self._lock:
+            return {
+                "videos": len(self._videos),
+                "tracked_viewers": sum(len(v) for v in self._videos.values()),
+            }
+
+
+# --------------------------------------------------------------------------
+# binary wire frames, the bulk path's fast wire (the JAX package's format)
+# --------------------------------------------------------------------------
+#
+#   frame   := b"FoVB" | u32 header_len | header | payload
+#   header  := UTF-8 JSON of the request/reply dict, with every ndarray
+#              value replaced by a manifest entry under "__bin__":
+#              [{"path": [key, ...], "dtype": "<f4", "shape": [...]}, ...]
+#   payload := the arrays' raw bytes, concatenated in manifest order
+#
+# Both wire forms are served on the same port and may interleave on one
+# connection: the handler sniffs the first byte ('{' = JSON line, 'F' =
+# binary frame). Binary requests get binary replies (yaw/pitch f32,
+# prefetch as a u8 tile mask instead of index lists).
+
+_BIN_MAGIC = b"FoVB"
+_BIN_HDR = struct.Struct("<I")
+_BIN_MAX_HEADER = 16 << 20  # 16 MB of JSON header
+_BIN_MAX_PAYLOAD = 1 << 30  # 1 GB of array payload per frame
+# dtype allow-list: fixed-width little-endian numerics only (never object
+# or structured dtypes — a hostile manifest must not be able to allocate
+# arbitrary Python objects)
+_BIN_DTYPES = ("<f4", "<f8", "<i4", "<i8", "|u1", "|b1")
+
+
+def _strip_arrays(node, path, manifest, chunks):
+    """Replace ndarray leaves with manifest entries; return the JSON node."""
+    if isinstance(node, np.ndarray):
+        arr = np.ascontiguousarray(node)
+        if arr.dtype.str not in _BIN_DTYPES:
+            if arr.dtype == np.bool_:
+                arr = arr.astype(np.uint8)
+            elif np.issubdtype(arr.dtype, np.floating):
+                arr = arr.astype("<f4")
+            elif np.issubdtype(arr.dtype, np.integer):
+                arr = arr.astype("<i4")
+            else:
+                raise TypeError(f"cannot wire dtype {arr.dtype} at {path}")
+        manifest.append(
+            {"path": path, "dtype": arr.dtype.str, "shape": list(arr.shape)}
+        )
+        chunks.append(arr.tobytes())
+        return None  # placeholder; decode re-attaches by path
+    if isinstance(node, dict):
+        return {
+            k: _strip_arrays(v, path + [k], manifest, chunks)
+            for k, v in node.items()
+        }
+    return node
+
+
+def encode_frame(obj: Dict) -> bytes:
+    """Encode a request/reply dict (ndarray values allowed anywhere in
+    the nested-dict structure) as one binary wire frame."""
+    manifest: list = []
+    chunks: list = []
+    clean = _strip_arrays(obj, [], manifest, chunks)
+    clean["__bin__"] = manifest
+    header = json.dumps(clean).encode()
+    return b"".join(
+        [_BIN_MAGIC, _BIN_HDR.pack(len(header)), header, *chunks]
+    )
+
+
+def _read_exact(rfile, n: int) -> bytes:
+    buf = rfile.read(n)
+    if len(buf) != n:
+        raise ConnectionError(
+            f"stream ended mid-frame ({len(buf)}/{n} bytes)"
+        )
+    return buf
+
+
+def read_frame(rfile, first: bytes = b"") -> Dict:
+    """Read one binary frame from a buffered stream and rebuild the dict
+    (arrays re-attached at their manifest paths as numpy views). ``first``
+    carries magic bytes a protocol sniffer already consumed."""
+    magic = first + _read_exact(rfile, len(_BIN_MAGIC) - len(first))
+    if magic != _BIN_MAGIC:
+        raise ValueError(f"bad frame magic {magic!r}")
+    (hlen,) = _BIN_HDR.unpack(_read_exact(rfile, _BIN_HDR.size))
+    if hlen > _BIN_MAX_HEADER:
+        raise ValueError(f"frame header {hlen} bytes exceeds the cap")
+    obj = json.loads(_read_exact(rfile, hlen))
+    manifest = obj.pop("__bin__", [])
+    total = 0
+    for ent in manifest:
+        if ent["dtype"] not in _BIN_DTYPES:
+            raise ValueError(f"dtype {ent['dtype']!r} not on the wire whitelist")
+        shape = ent["shape"]
+        if not all(isinstance(d, int) and 0 <= d <= _BIN_MAX_PAYLOAD
+                   for d in shape):
+            # a negative dim would make the payload length negative and
+            # turn the exact read into a read-to-EOF (handler hang)
+            raise ValueError(f"bad shape {shape} in frame manifest")
+        n = 1
+        for d in shape:  # Python ints: no silent int64 overflow
+            n *= d
+        total += n * np.dtype(ent["dtype"]).itemsize
+        if total > _BIN_MAX_PAYLOAD:
+            raise ValueError(
+                f"frame payload {total} bytes exceeds the cap"
+            )
+    payload = _read_exact(rfile, total)
+    off = 0
+    for ent in manifest:
+        dt = np.dtype(ent["dtype"])
+        shape = tuple(ent["shape"])
+        n = 1
+        for d in shape:
+            n *= d
+        arr = np.frombuffer(payload, dt, count=n, offset=off).reshape(shape)
+        off += n * dt.itemsize
+        node = obj
+        *parents, leaf = ent["path"]
+        for key in parents:
+            nxt = node.get(key)
+            if not isinstance(nxt, dict):
+                nxt = {}
+                node[key] = nxt
+            node = nxt
+        node[leaf] = arr
+    return obj
+
+
+# --------------------------------------------------------------------------
+# transport: line-delimited JSON and binary frames over TCP
+# --------------------------------------------------------------------------
+
+
+class _Handler(socketserver.StreamRequestHandler):
+    def handle(self):
+        srv: "FovServer" = self.server  # type: ignore[assignment]
+        while True:
+            first = self.rfile.read(1)
+            if not first:
+                break
+            if first in (b"\n", b"\r", b" "):
+                continue
+            if first == _BIN_MAGIC[:1]:
+                # binary frame (fast wire). A frame that fails to DECODE
+                # desyncs the byte stream, so answer and close; a request
+                # that fails to DISPATCH leaves the stream clean, so
+                # answer and keep serving (same contract as JSON lines).
+                try:
+                    req = read_frame(self.rfile, first=first)
+                except Exception as e:  # noqa: BLE001 — the reply carries it
+                    self.wfile.write(encode_frame(
+                        {"id": None,
+                         "error": f"{type(e).__name__}: {e}"}
+                    ))
+                    self.wfile.flush()
+                    break
+                try:
+                    resp = srv.dispatch_op(req, raw_arrays=True)
+                except Exception as e:  # noqa: BLE001 — the reply carries it
+                    resp = {
+                        "id": req.get("id"),
+                        "error": f"{type(e).__name__}: {e}",
+                    }
+                self.wfile.write(encode_frame(resp))
+                self.wfile.flush()
+                continue
+            raw = (first + self.rfile.readline()).strip()
+            if not raw:
+                continue
+            try:
+                req = json.loads(raw)
+                resp = srv.dispatch_op(req)
+            except Exception as e:  # noqa: BLE001 — protocol errors answer inline
+                rid = None
+                try:
+                    rid = json.loads(raw).get("id")
+                except Exception:  # noqa: BLE001
+                    pass
+                resp = {"id": rid, "error": f"{type(e).__name__}: {e}"}
+            self.wfile.write((json.dumps(resp) + "\n").encode())
+            self.wfile.flush()
+
+
+class FovServer(socketserver.ThreadingTCPServer):
+    """Line-JSON and binary-frame TCP front end over a
+    :class:`DynamicBatcher`, with the JAX package's ops (one request a line
+    or frame, echoing "id"):
+
+      {"op": "predict", "id", "past": [[x,y,z] × h_in],
+       "other_future"?: [[...] × K], "other_mask"?: [K],
+       "features"?: [F]}                        → yaw/pitch (+ prefetch)
+      {"op": "push", "id", "viewer", "pose": [yaw,pitch]|[x,y,z],
+       "video"?: str, "frame"?: int}            → a prediction once the
+                                                  viewer's window fills,
+                                                  else {"pending": k}; with
+                                                  "video" (peer-consuming
+                                                  families) the pose also
+                                                  feeds the PeerPool and the
+                                                  answer conditions on the
+                                                  viewers ahead in that
+                                                  video ("peers": how many)
+      {"op": "predict_batch", "id", "past": [[[x,y,z] × h_in] × N],
+       extras? batched likewise}                → N predictions in one
+                                                  round trip (the windows
+                                                  still coalesce in the
+                                                  shared batcher)
+      … with "group_key": [key × N],
+       "group_sets": {key: [[...] × K]},
+       "group_masks"?: {key: [K]}               → group-shared peer serving:
+                                                  one peer copy per video
+                                                  crosses the wire and the
+                                                  host-to-device copy
+      {"op": "stats", "id"}                     → batcher + session stats
+      {"op": "drop", "id", "viewer"}            → forget a session
+      {"op": "reload", "id", "path": npz}       → hot-swap params from an
+                                                  `export` npz (checked
+                                                  against the preset's
+                                                  architecture first)
+    """
+
+    daemon_threads = True
+    allow_reuse_address = True
+    # the stdlib's listen backlog is 5: a burst of simultaneous connects
+    # (64 closed-loop clients arriving together) would overflow it and the
+    # kernel would reset the excess connections
+    request_queue_size = 128
+
+    def __init__(
+        self,
+        addr: Tuple[str, int],
+        batcher: DynamicBatcher,
+        *,
+        request_timeout: float = 30.0,
+        reload_ctx: Optional[Tuple[ParamStore, object, object]] = None,
+        grouped_fn: Optional[Callable] = None,
+        grouped_inflight: int = 4,
+    ):
+        super().__init__(addr, _Handler)
+        self.batcher = batcher
+        self.sessions = ViewerSessions(batcher.h_in)
+        self.request_timeout = request_timeout
+        self.reload_ctx = reload_ctx  # (param_store, cfg, fam) or None
+        # grouped requests dispatch on the handler thread (they bypass the
+        # DynamicBatcher: group composition varies per request): bound how
+        # many run at once so a burst cannot stack unbounded device work or
+        # stalled threads, and account them for "stats"
+        self._grouped_sem = threading.BoundedSemaphore(grouped_inflight)
+        self._grouped_lock = threading.Lock()
+        self._grouped_requests = 0
+        self._grouped_windows = 0
+        self._grouped_rejected = 0
+        self._grouped_lat = deque(maxlen=1024)
+        self.grouped_fn = grouped_fn
+        # live cross-user context: when the family consumes peer futures,
+        # push requests carrying a "video" feed the pool and viewers behind
+        # others on the same video predict with real peer context
+        self.peers: Optional[PeerPool] = None
+        if "other_future" in batcher.extra_specs:
+            k, h_out = batcher.extra_specs["other_future"][:2]
+            self.peers = PeerPool(h_out, k)
+        self.t_start = time.monotonic()
+
+    # -- ops ------------------------------------------------------------
+    # (named dispatch_op, not handle_request: BaseServer.handle_request()
+    # is an inherited zero-argument stdlib API)
+
+    def dispatch_op(self, req: Dict, *, raw_arrays: bool = False) -> Dict:
+        op = req.get("op", "predict")
+        rid = req.get("id")
+        if op == "predict":
+            extras = {
+                k: req[k]
+                for k in self.batcher.extra_specs
+                if req.get(k) is not None
+            }
+            res = self.batcher.predict(
+                np.asarray(req["past"], np.float32),
+                timeout=self.request_timeout,
+                **extras,
+            )
+            return self._prediction(rid, res, raw=raw_arrays)
+        if op == "predict_batch":
+            return self._predict_batch(req, rid, raw_arrays)
+        if op == "push":
+            viewer = str(req["viewer"])
+            xyz = pose_to_xyz(req["pose"])
+            window = self.sessions.push(viewer, xyz)
+            frame = None
+            if self.peers is not None and req.get("video") is not None:
+                frame = self.peers.observe(
+                    str(req["video"]), viewer, req.get("frame"), xyz
+                )
+            if window is None:
+                return {"id": rid, "pending": self.sessions.missing(viewer)}
+            extras = {}
+            n_peers = 0
+            if frame is not None:
+                got = self.peers.peers_for(str(req["video"]), viewer, frame)
+                if got is not None:
+                    extras = {"other_future": got[0], "other_mask": got[1]}
+                    n_peers = int(got[1].sum())
+            res = self.batcher.predict(
+                window, timeout=self.request_timeout, **extras
+            )
+            out = self._prediction(rid, res, raw=raw_arrays)
+            if self.peers is not None:
+                out["peers"] = n_peers
+            return out
+        if op == "stats":
+            return self._stats(rid)
+        if op == "drop":
+            self.sessions.drop(str(req["viewer"]))
+            return {"id": rid, "dropped": True}
+        if op == "reload":
+            if self.reload_ctx is None:
+                raise ValueError(
+                    "this server was built without reload support "
+                    "(serve_daemon wires it automatically)"
+                )
+            store, cfg, fam = self.reload_ctx
+            # checks structure and shapes before the swap: a bad npz errors
+            # here and the old params keep serving
+            new_params = load_exported_params(
+                str(req["path"]), cfg, fam, device=params_device(store.params)
+            )
+            store.swap(new_params)
+            return {"id": rid, "reloaded": True, "version": store.version}
+        raise ValueError(f"unknown op {op!r}")
+
+    def _predict_batch(self, req: Dict, rid, raw: bool) -> Dict:
+        """The bulk path: one request carries N windows (and optional
+        per-window extras, or group-shared peer sets), one reply carries N
+        predictions. Per-row windows ride the shared batcher, so bulk and
+        single-viewer traffic coalesce together."""
+        pasts = np.asarray(req["past"], np.float32)
+        if pasts.ndim != 3:
+            raise ValueError(
+                f"predict_batch past must be (N, h_in, 3), got "
+                f"shape {pasts.shape}"
+            )
+        gkeys = req.get("group_key")
+        if gkeys is not None:
+            # group-shared peers: "group_key" names each row's video,
+            # "group_sets" maps key → (K, h_out, 3) raw shared peer windows
+            # (+ optional "group_masks")
+            sets = {
+                k: np.asarray(v, np.float32)
+                for k, v in (req.get("group_sets") or {}).items()
+            }
+            masks = req.get("group_masks")
+            if masks is not None:
+                masks = {
+                    k: np.asarray(v, np.float32)
+                    for k, v in masks.items()
+                }
+            if self.grouped_fn is not None:
+                # admission: wait up to the request timeout for a dispatch
+                # slot, then reject loudly (the client can back off)
+                # instead of stacking handler threads
+                if not self._grouped_sem.acquire(
+                    timeout=self.request_timeout
+                ):
+                    with self._grouped_lock:
+                        self._grouped_rejected += 1
+                    raise RuntimeError(
+                        "grouped path overloaded; retry with backoff"
+                    )
+                t0 = time.monotonic()
+                try:
+                    host = grouped_predict(
+                        self.grouped_fn, pasts, gkeys, sets, masks
+                    )
+                finally:
+                    self._grouped_sem.release()
+                with self._grouped_lock:
+                    self._grouped_requests += 1
+                    self._grouped_windows += pasts.shape[0]
+                    self._grouped_lat.append(time.monotonic() - t0)
+                return self._bulk_reply(rid, host, raw=raw)
+            # a server built without the grouped program: expand the shared
+            # sets to per-row extras and ride the normal bulk path (the
+            # same answers, per-row transfer cost)
+            missing = [k for k in dict.fromkeys(gkeys) if k not in sets]
+            if missing:
+                raise KeyError(
+                    f"group_sets missing peer sets for {missing}"
+                )
+            extras_all = {
+                "other_future": np.stack([sets[k] for k in gkeys])
+            }
+            if masks is not None:
+                extras_all["other_mask"] = np.stack(
+                    [masks[k] for k in gkeys]
+                )
+        else:
+            extras_all = {
+                k: np.asarray(req[k], np.float32)
+                for k in self.batcher.extra_specs
+                if req.get(k) is not None
+            }
+        pending = self.batcher.submit_many(pasts, **extras_all)
+        parts = []
+        deadline = time.monotonic() + self.request_timeout
+        for p in pending:
+            if not p.event.wait(max(deadline - time.monotonic(), 0)):
+                raise TimeoutError("prediction timed out")
+            if p.error is not None:
+                raise p.error
+            parts.append(p.result)
+        host = {
+            k: (
+                np.concatenate([r[k] for r in parts])
+                if len(parts) > 1
+                else parts[0][k]
+            )
+            for k in parts[0]
+        }
+        return self._bulk_reply(rid, host, raw=raw)
+
+    def _stats(self, rid) -> Dict:
+        s = self.batcher.stats()
+        s.update(
+            {
+                "id": rid,
+                "sessions": len(self.sessions),
+                "uptime_s": round(time.monotonic() - self.t_start, 1),
+            }
+        )
+        if self.peers is not None:
+            s["peer_pool"] = self.peers.stats()
+        if self.grouped_fn is not None:
+            # grouped traffic bypasses the batcher: without this block a
+            # grouped-heavy daemon looks idle in "stats"
+            with self._grouped_lock:
+                lat = sorted(self._grouped_lat)
+                g = {
+                    "requests": self._grouped_requests,
+                    "windows": self._grouped_windows,
+                    "rejected": self._grouped_rejected,
+                }
+            if lat:
+                pick = lambda q: round(  # noqa: E731
+                    lat[int(q * (len(lat) - 1))] * 1e3, 3
+                )
+                g["latency_ms_p50"] = pick(0.50)
+                g["latency_ms_p95"] = pick(0.95)
+                g["latency_ms_p99"] = pick(0.99)
+            s["grouped"] = g
+        return s
+
+    @staticmethod
+    def _prediction(rid, res: Dict, raw: bool = False) -> Dict:
+        if raw:
+            # binary wire: f32 trajectories + u8 tile mask, no rounding,
+            # no Python lists (encode_frame copies them out)
+            out = {
+                "id": rid,
+                "yaw": np.asarray(res["yaw"], np.float32),
+                "pitch": np.asarray(res["pitch"], np.float32),
+            }
+            if "prefetch" in res:
+                out["prefetch"] = np.asarray(
+                    res["prefetch"]
+                ).astype(np.uint8)
+            return out
+        out = {
+            "id": rid,
+            "yaw": np.round(
+                np.asarray(res["yaw"], np.float64), 6
+            ).tolist(),
+            "pitch": np.round(
+                np.asarray(res["pitch"], np.float64), 6
+            ).tolist(),
+        }
+        if "prefetch" in res:
+            out["prefetch"] = np.flatnonzero(res["prefetch"]).tolist()
+        return out
+
+    @staticmethod
+    def _bulk_reply(rid, host: Dict, raw: bool = False) -> Dict:
+        if raw:
+            out = {
+                "id": rid,
+                "yaw": host["yaw"].astype(np.float32, copy=False),
+                "pitch": host["pitch"].astype(np.float32, copy=False),
+            }
+            if "prefetch" in host:
+                out["prefetch"] = host["prefetch"].astype(np.uint8)
+            return out
+        out = {
+            "id": rid,
+            "yaw": np.round(host["yaw"].astype(np.float64), 6).tolist(),
+            "pitch": np.round(
+                host["pitch"].astype(np.float64), 6
+            ).tolist(),
+        }
+        if "prefetch" in host:
+            out["prefetch"] = [
+                np.flatnonzero(row).tolist() for row in host["prefetch"]
+            ]
+        return out
+
+
+class FovClient:
+    """Blocking client (one in-flight request per connection; open
+    several clients — or threads with one client each — to exercise
+    server-side batching).
+
+    ``wire="json"`` (default) speaks line-JSON; ``wire="binary"`` speaks
+    the :func:`encode_frame` fast wire — request values may then be numpy
+    arrays (sent as raw bytes) and replies come back with numpy arrays
+    (``yaw``/``pitch`` f32, ``prefetch`` a u8 tile mask instead of index
+    lists). Both wires hit the same server ops on one port."""
+
+    def __init__(
+        self,
+        host: str,
+        port: int,
+        timeout: float = 30.0,
+        wire: str = "json",
+    ):
+        if wire not in ("json", "binary"):
+            raise ValueError(f"wire must be 'json' or 'binary', got {wire!r}")
+        self._sock = socket.create_connection((host, port), timeout=timeout)
+        self._rfile = self._sock.makefile("rb")
+        self._lock = threading.Lock()
+        self._next_id = 0
+        self._wire = wire
+
+    def request(self, obj: Dict) -> Dict:
+        with self._lock:
+            if "id" not in obj:
+                self._next_id += 1
+                obj = {**obj, "id": self._next_id}
+            if self._wire == "binary":
+                self._sock.sendall(encode_frame(obj))
+                return read_frame(self._rfile)
+            self._sock.sendall((json.dumps(obj) + "\n").encode())
+            line = self._rfile.readline()
+            if not line:
+                raise ConnectionError("server closed the connection")
+            return json.loads(line)
+
+    def predict(self, past, **extras) -> Dict:
+        return self.request({"op": "predict", "past": past, **extras})
+
+    def predict_group(
+        self, pasts, group_key, group_sets, group_masks=None
+    ) -> Dict:
+        """Bulk predict in the grouped wire form: each video's peer set
+        crosses the wire once. ``pasts`` (N, h_in, 3), ``group_key``
+        length-N video ids, ``group_sets`` id → (K, h_out, 3) raw peer
+        windows. With ``wire="binary"`` pass numpy arrays; with JSON pass
+        lists."""
+        req = {
+            "op": "predict_batch", "past": pasts,
+            "group_key": list(group_key), "group_sets": dict(group_sets),
+        }
+        if group_masks is not None:
+            req["group_masks"] = dict(group_masks)
+        return self.request(req)
+
+    def push(self, viewer: str, pose) -> Dict:
+        return self.request({"op": "push", "viewer": viewer, "pose": pose})
+
+    def stats(self) -> Dict:
+        return self.request({"op": "stats"})
+
+    def close(self):
+        try:
+            self._sock.close()
+        finally:
+            self._rfile.close()
+
+
+# --------------------------------------------------------------------------
+# daemon entry point (used by the CLI)
+# --------------------------------------------------------------------------
+
+# serve_daemon's impl: JAX's names. "auto" is the fused route wherever the
+# tensors are (the kernels on the card, their plain versions on the CPU),
+# "xla" the plain PyTorch path
+DAEMON_IMPLS = ("auto", "xla", "fused")
+
+
+def serve_daemon(
+    params,
+    cfg,
+    fam,
+    *,
+    device,
+    host: str = "127.0.0.1",
+    port: int = 8360,
+    max_batch: int = 256,
+    max_wait_ms: float = 2.0,
+    with_tiles: bool = True,
+    tile_rows: int = 6,
+    tile_cols: int = 12,
+    fov_deg: float = 90.0,
+    impl: str = "auto",
+    warmup: bool = True,
+    pipeline_depth: int = 4,
+    grouped: bool = True,
+    grouped_warmup: Optional[list] = None,
+) -> FovServer:
+    """Build the packed serve program, the batcher and the TCP server on
+    ``device``, where ``params`` must be (not yet serving: call
+    ``serve_forever()``, or serve it from a thread). With ``warmup`` every
+    rung of the bucket ladder (1, 2, 4, … ``max_batch``) runs once before
+    the socket opens, so no live request pays a first launch (the kernels'
+    build, the allocator's first blocks). The server answers "reload":
+    hot-swap params from a new `export` npz through the :class:`ParamStore`
+    the programs read at every dispatch.
+
+    Peer-consuming families also get the grouped program
+    (:func:`make_grouped_serve_fn`) for grouped ``predict_batch`` requests;
+    ``grouped_warmup`` lists ``(n_rows, n_groups)`` pairs to run once on it
+    before the socket opens."""
+    if impl not in DAEMON_IMPLS:
+        raise ValueError(f"impl must be one of {DAEMON_IMPLS}, got {impl!r}")
+    impl = "plain" if impl == "xla" else "fused"
+    device = torch.device(device)
+    store = ParamStore(params)
+    tiles = dict(with_tiles=with_tiles, tile_rows=tile_rows, tile_cols=tile_cols, fov_deg=fov_deg)
+    serve_fn = make_serve_fn(params, cfg, fam, device=device, impl=impl, param_store=store, **tiles)
+    specs = extra_specs_for(cfg)
+    want_grouped = grouped and "other_future" in specs
+    if grouped_warmup and not want_grouped:
+        raise ValueError(
+            "grouped_warmup given but this server has no grouped path "
+            "(peerless preset, or grouped=False)"
+        )
+    if warmup:
+        h_in = cfg.model.h_in
+        b = 1
+        while True:
+            dummy = {"past": np.zeros((b, h_in, 3), np.float32)}
+            dummy["past"][..., 0] = 1.0  # on-sphere
+            for name, shape in specs.items():
+                dummy[name] = np.zeros((b,) + shape, np.float32)
+            serve_fn(dummy).cpu()  # packed: a single output tensor
+            if b >= max_batch:
+                break
+            b = min(b * 2, max_batch)
+    batcher = DynamicBatcher(
+        serve_fn,
+        h_in=cfg.model.h_in,
+        extra_specs=specs,
+        required=required_extras_for(cfg),
+        max_batch=max_batch,
+        max_wait_ms=max_wait_ms,
+        pipeline_depth=pipeline_depth,
+    )
+    grouped_fn = None
+    if want_grouped:
+        grouped_fn = make_grouped_serve_fn(
+            params, cfg, fam, device=device, param_store=store, packed=True, impl=impl, **tiles,
+        )
+        if grouped_warmup:
+            k, t = specs["other_future"][:2]
+            for n_rows, n_groups in grouped_warmup:
+                pasts = np.zeros((int(n_rows), cfg.model.h_in, 3), np.float32)
+                pasts[..., 0] = 1.0  # on-sphere
+                peers = np.zeros((k, t, 3), np.float32)
+                peers[..., 0] = 1.0
+                keys = [f"_warm{i % int(n_groups)}" for i in range(int(n_rows))]
+                sets = {f"_warm{i}": peers for i in range(int(n_groups))}
+                grouped_predict(grouped_fn, pasts, keys, sets)
+    return FovServer(
+        (host, port), batcher, reload_ctx=(store, cfg, fam),
+        grouped_fn=grouped_fn,
+    )

@@ -233,9 +233,10 @@ def test_peer_fwd_block_refuses_what_the_kernels_do_not_take():
     for d in (0, 9):
         with pytest.raises(ValueError, match="1 <= d <= 8 window features"):
             lstm_align.peer_fwd_block(128, 7, d, BF)
-    with pytest.raises(ValueError, match="K = 9 peers"):
-        lstm_align.peer_fwd_block(128, 9, 3)
+    with pytest.raises(ValueError, match="K = 257 peers"):
+        lstm_align.peer_fwd_block(128, 257, 3)
     assert lstm_align.peer_fwd_block(32, 9, 3, BF).rows_v * 9 <= 256
+    assert lstm_align.peer_fwd_block(128, 256, 3) == fused_lstm.peer_tf32_rows(128, 256, 3)
 
 
 # ---------------------------------------------- row 5's backward: the teacher-forced mode of ss_bwd_kernel

@@ -1,4 +1,4 @@
-"""The port's command line: ``presets`` and ``serve-bench``."""
+"""The port's command line: ``presets`` and ``serve-bench``, its device on the card by default."""
 
 import json
 
@@ -26,9 +26,14 @@ def test_serve_bench_on_cpu_is_labelled_cpu(impl, capsys):
     assert res["viewers_per_sec"] > 0
 
 
-def test_serve_bench_needs_a_device_argument():
-    with pytest.raises(SystemExit):
-        cli.main(["serve-bench"])
+def test_serve_bench_defaults_to_the_card():
+    assert cli._build_parser().parse_args(["serve-bench"]).device == "cuda"
+
+
+@pytest.mark.skipif("torch.cuda.is_available()", reason="checks the no-card case")
+def test_serve_bench_on_the_default_device_raises_without_a_card():
+    with pytest.raises(RuntimeError, match="torch sees no CUDA device"):
+        cli.main(["serve-bench", "--batch", "8", "--iters", "1"])
 
 
 @pytest.mark.skipif("torch.cuda.is_available()", reason="checks the no-card case")

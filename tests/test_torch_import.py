@@ -68,3 +68,45 @@ def test_slice_entry_points_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": ROOT})
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+# slices C-1 and C-2 (export, predict, the TCP daemon) add entry points to
+# existing modules
+_SLICE_C_1_2 = (("geometry", "euler_to_xyz_np"), ("infer", "predict_batch"), ("infer", "predict_euler"),
+                ("params", "tensor_to_array"), ("serving", "pose_to_xyz"), ("serving", "ViewerSessions"),
+                ("serving", "PeerPool"), ("serving", "encode_frame"), ("serving", "read_frame"),
+                ("serving", "FovServer"), ("serving", "FovClient"), ("serving", "serve_daemon"),
+                ("cli", "cmd_export"), ("cli", "cmd_predict"), ("cli", "cmd_serve_daemon"))
+
+_DAEMON_PROBE = r"""
+import importlib, sys, threading
+for blocked in ('jax', 'jaxlib', 'longterm360fov_tpu'):
+    sys.modules[blocked] = None
+for mod, attr in MODS:
+    getattr(importlib.import_module('longterm360fov_tpu_torch.' + mod), attr)
+import numpy as np, torch
+from longterm360fov_tpu_torch import serving
+from longterm360fov_tpu_torch.config import get_preset
+from longterm360fov_tpu_torch.models import get_family
+cfg = get_preset('lstm-xyz-10')
+fam = get_family(cfg.model_family)
+params = fam.init(torch.Generator().manual_seed(0), cfg.model, device='cpu')
+server = serving.serve_daemon(params, cfg, fam, device='cpu', port=0, max_batch=4, warmup=False)
+threading.Thread(target=server.serve_forever, daemon=True).start()
+past = np.tile(np.float32([1, 0, 0]), (cfg.model.h_in, 1))
+for wire in ('json', 'binary'):
+    c = serving.FovClient(*server.server_address, wire=wire)
+    r = c.predict(past if wire == 'binary' else past.tolist())
+    assert len(r['yaw']) == cfg.model.h_out, r
+    c.close()
+server.shutdown(); server.server_close(); server.batcher.stop()
+print('ok')
+"""
+
+
+def test_export_predict_and_daemon_run_without_jax():
+    """The slice's entry points import, and a CPU daemon answers on both
+    wires, with jax and the JAX package unimportable."""
+    proc = subprocess.run([sys.executable, "-c", _DAEMON_PROBE.replace("MODS", repr(_SLICE_C_1_2))], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120, env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -694,15 +694,15 @@ def test_lockstep_tier_never_falls_back_on_card():
     rng = np.random.default_rng(0)
     enc, dec = _stack(rng, 3, 1), _stack(rng, 3 + 128, 1)
     pw, pb = _cuda(rng, (128, 3)), _cuda(rng, (3,))
-    peer, pxs, w = _peer_case(4, 9, 3, seed=0)
-    with pytest.raises(ValueError, match="K = 9 peers"):
+    peer, pxs, w = _peer_case(4, 257, 3, seed=0)
+    with pytest.raises(ValueError, match="K = 257 peers"):
         fused_lstm.fused_serve(enc, dec, pw, pb, _cuda(rng, (4, 5, 3)), 3, peer_params=peer,
                                peer_xs=pxs, peer_w=w)
     with pytest.raises(ValueError, match="span"):
         fused_lstm.fused_serve(enc, dec, pw, pb, _cuda(rng, (4, 5, 3)), 4, peer_params=peer,
                                peer_xs=pxs, peer_w=w)
-    with pytest.raises(ValueError, match="K = 9 peers"):
-        lstm_align.peer_fwd(peer, pxs.reshape(36, 3, 3).contiguous(), w)
+    with pytest.raises(ValueError, match="K = 257 peers"):
+        lstm_align.peer_fwd(peer, pxs.reshape(4 * 257, 3, 3).contiguous(), w)
 
 
 # ---------------------------- the bf16 encoders on the tensor cores (lstm_mma.cuh)
@@ -731,7 +731,8 @@ def test_bf16_encode_tensor_core_shapes(hidden, layers, batch):
 
 
 @pytest.mark.parametrize("ctx_dim,k,batch", [(64, 4, 301), (96, 8, 257), (128, 4, 1000), (128, 8, 129),
-                                             (32, 3, 300), (128, 9, 70), (1024, 1, 40)])
+                                             (32, 3, 300), (128, 9, 70), (1024, 1, 40), (128, 16, 301),
+                                             (128, 256, 13)])
 def test_bf16_peer_context_tensor_core_shapes(ctx_dim, k, batch):
     rng = np.random.default_rng(ctx_dim + k)
     peer = _stack(rng, 3, 1, hidden=ctx_dim)[0]
@@ -1071,9 +1072,10 @@ def test_ss_bwd_permuted_batch_gives_the_permuted_answer(step, cd):
 @pytest.mark.parametrize("cd", COMPUTE)
 @pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k,c,batch,t", [(7, 128, 67, 100), (1, 128, 13, 20), (2, 32, 301, 30), (3, 96, 100, 30),
-                                         (4, 64, 257, 30), (5, 128, 40, 30), (6, 64, 19, 30), (8, 128, 257, 30)])
+                                         (4, 64, 257, 30), (5, 128, 40, 30), (6, 64, 19, 30), (8, 128, 257, 30),
+                                         (16, 128, 67, 30), (256, 128, 5, 20)])
 def test_peer_fwd_tensor_core_shapes(k, c, batch, t, rd, cd):
-    """The peer forward at K = 1..8 and C = 32..128: h and c (residual
+    """The peer forward at K = 1..8, 16 and 256 and C = 32..128: h and c (residual
     type) and ctx against the plain version ("fwd": 1e-5, or one bf16 step
     on a bf16 value), a row with every peer masked, repeats bit-equal."""
     rng = np.random.default_rng(k + c)
@@ -1094,8 +1096,7 @@ def test_training_recurrences_refuse_what_their_blocks_do_not_take():
     """Each shape the bodies do not take raises ValueError naming it, on the
     card too (no fall-back): the backward at hidden 288, a context not of
     whole n8 tiles, d = 9 (an f32 stack of 4 layers, refused before, now
-    runs in 16-row blocks); the peer forward at ctx_dim 160, d = 9, K = 9 in
-    f32."""
+    runs in 16-row blocks); the peer forward at ctx_dim 160, d = 9, K = 257."""
     rng = np.random.default_rng(0)
     ps = _stack(rng, 3 + 128, 4)
     a = _ss_case(4, 4, 128, "1", seed=0, t=3)[1]
@@ -1115,8 +1116,8 @@ def test_training_recurrences_refuse_what_their_blocks_do_not_take():
     with pytest.raises(ValueError, match="1 <= d <= 8 window features"):
         lstm_align.peer_fwd(peer, _cuda(rng, (14, 5, 9)), torch.full((2, 7), 1 / 7, device="cuda"))
     peer = _stack(rng, 3, 1)[0]
-    with pytest.raises(ValueError, match="K = 9 peers"):
-        lstm_align.peer_fwd(peer, _cuda(rng, (18, 5, 3)), torch.full((2, 9), 1 / 9, device="cuda"))
+    with pytest.raises(ValueError, match="K = 257 peers"):
+        lstm_align.peer_fwd(peer, _cuda(rng, (514, 5, 3)), torch.full((2, 257), 1 / 257, device="cuda"))
 
 
 # ------------------ row 4 f32 (fused_encode on three-pass TF32) and row 5's backward on the tensor cores
@@ -1847,7 +1848,11 @@ def test_f32_lstm_decode_tensor_core_shapes(batch, layers, ctx_dim, rows, f32_ro
 
 @pytest.mark.parametrize("rows", [0, 32])
 @pytest.mark.parametrize("ctx_dim,k,batch", [(128, 7, 4099), (128, 8, 129), (64, 4, 301), (96, 8, 257),
-                                             (32, 3, 300), (128, 1, 70), (32, 8, 1)])
+                                             (32, 3, 300), (128, 1, 70), (32, 8, 1),
+                                             # past 8 peers: whole viewers, then one viewer a block of up to 256
+                                             # rows, c and (K = 256 at C = 128) the staging in device memory
+                                             (128, 9, 300), (128, 16, 257), (128, 64, 45), (128, 65, 9),
+                                             (128, 129, 7), (128, 256, 13), (64, 256, 5), (32, 100, 3)])
 def test_f32_lstm_peer_context_tensor_core_shapes(ctx_dim, k, batch, rows, f32_rows):
     f32_rows(rows)
     rng = np.random.default_rng(ctx_dim + k)
@@ -1891,8 +1896,9 @@ def test_f32_lstm_kernels_have_hmma_and_their_blocks_fit():
             g = fused_lstm.serve_tf32_rows(128, layers, 3, ctx_dim, step, rows=rows)
             assert lib.fused_serve_tf32_smem_bytes(g.rp, 3, ctx_dim, 128, layers, 0, int(g.c_smem), int(step)) == g.smem
     for c in (32, 64, 96, 128):
-        g = fused_lstm.peer_tf32_rows(c, 7, 3)
-        assert lib.peer_context_smem_bytes(g.rp, g.rows_v * 7, 3, c, 0, int(g.c_smem), 0) == g.smem
+        for k in (7, 16, 64, 256):
+            g = fused_lstm.peer_tf32_rows(c, k, 3)
+            assert lib.peer_context_smem_bytes(g.rp, g.rows_v * k, 3, c, 0, int(g.c_smem), 0, int(g.h_smem)) == g.smem
 
 
 def test_f32_lstm_tier_refuses_what_it_does_not_take():
@@ -2201,3 +2207,51 @@ def test_encode_train_never_falls_back_on_card():
     with pytest.raises(ValueError, match="contiguous"):
         params["enc"][0]["attn"]["wq"] = params["enc"][0]["attn"]["wq"].detach().t()
         et.fused_encode_train(params, cfg, past)
+
+
+# ------------------------------------------------------------ the daemon on the card (slices C-1 and C-2)
+
+
+@pytest.mark.parametrize("wire", ["json", "binary"])
+def test_daemon_on_the_card_answers_a_client(wire):
+    """serve_daemon on the card answers a FovClient's push flow and bulk
+    request on both wires through the serve kernel (its launch counter
+    rises), within 1e-4 of the plain path on the CPU."""
+    import threading
+
+    from longterm360fov_tpu_torch import serving
+    from longterm360fov_tpu_torch.config import get_preset
+    from longterm360fov_tpu_torch.models import get_family
+
+    cfg = get_preset("seq2seq-tf-30")
+    fam = get_family(cfg.model_family)
+    params_np = oracle.init_params_np(0, cfg.model)
+    server = serving.serve_daemon(params_from_numpy(params_np, "cuda"), cfg, fam, device="cuda", port=0,
+                                  max_batch=16, warmup=True)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    client = serving.FovClient(*server.server_address, wire=wire)
+    rng = np.random.default_rng(3)
+    pasts = rng.normal(size=(5, cfg.model.h_in, 3)).astype(np.float32)
+    pasts /= np.linalg.norm(pasts, axis=-1, keepdims=True)
+    try:
+        before = fused_lstm.fused_serve.launches
+        arg = pasts if wire == "binary" else pasts.tolist()
+        bulk = client.request({"op": "predict_batch", "past": arg})
+        for pose in pasts[0]:
+            r = client.push("viewer", pose.tolist())
+        assert fused_lstm.fused_serve.launches > before
+    finally:
+        client.close()
+        server.shutdown()
+        server.server_close()
+        server.batcher.stop()
+    assert "error" not in bulk and "error" not in r, (bulk, r)
+    cpu = serving.make_serve_fn(params_from_numpy(params_np, "cpu"), cfg, fam, device="cpu", impl="plain")
+    ref = cpu.unpack(cpu({"past": pasts}).numpy())
+
+    def xyz(out):  # compared as directions: yaw wraps at ±π
+        yaw, pitch = np.asarray(out["yaw"], np.float64), np.asarray(out["pitch"], np.float64)
+        return np.stack([np.cos(pitch) * np.cos(yaw), np.cos(pitch) * np.sin(yaw), np.sin(pitch)], -1)
+
+    assert np.abs(xyz(bulk) - xyz(ref)).max() <= 1e-4
+    assert np.abs(xyz(r) - xyz(ref)[0]).max() <= 1e-4

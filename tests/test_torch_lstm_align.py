@@ -295,8 +295,8 @@ def test_aligned_wrappers_reject_what_the_kernels_do_not_take():
     # the peer forward's blocks: the serve tier's peer context blocks, all K peers of whole viewers
     assert lstm_align.peer_fwd_block(128, 7, 3).rows_v == 9 and lstm_align.peer_fwd_block(128, 3, 3).rows_v == 21
     assert lstm_align.peer_fwd_block(32, 7, 3, torch.bfloat16) == fused_lstm.peer_tc_rows(32, 7, 3)
-    with pytest.raises(ValueError, match="K = 9 peers"):
-        lstm_align.peer_fwd_block(128, 9, 3)
+    with pytest.raises(ValueError, match="K = 257 peers"):
+        lstm_align.peer_fwd_block(128, 257, 3)
     with pytest.raises(ValueError, match="ctx_dim in"):
         lstm_align.peer_fwd_block(8, 3, 3)
 

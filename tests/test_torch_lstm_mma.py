@@ -170,7 +170,7 @@ def test_serve_tc_rows_at_the_preset_shapes(preset, layers, ctx_dim, step_ctx, w
     m = get_preset(preset).model
     assert (m.layers, m.ctx_dim, bool(m.peer_align)) == (layers, ctx_dim, step_ctx)
     geo = fused_lstm.serve_tc_rows(m.hidden, m.layers, m.d, m.ctx_dim, step_ctx)
-    assert geo[1:] == want
+    assert geo[1:7] == want
     assert geo.smem == fused_lstm._serve_smem(geo.rp, m.d, m.ctx_dim, m.hidden, m.layers, geo.w_res, geo.c_smem,
                                               step_ctx) <= SMEM
 
@@ -385,7 +385,7 @@ def test_serve_tf32_rows_at_the_preset_shapes(preset, want):
     m = get_preset(preset).model
     step = bool(m.peer_align)
     geo = fused_lstm.serve_tf32_rows(m.hidden, m.layers, m.d, m.ctx_dim, step)
-    assert geo[1:] == want
+    assert geo[1:7] == want
     assert geo.smem == fused_lstm._serve_smem(geo.rp, m.d, m.ctx_dim, m.hidden, m.layers, False, geo.c_smem, step,
                                               f32=True) <= SMEM
     assert not fused_lstm._serve_smem(64, m.d, m.ctx_dim, m.hidden, m.layers, False, True, step, f32=True) <= SMEM \
@@ -448,6 +448,30 @@ def test_peer_tf32_rows(ctx_dim, k):
         assert geo.warps == 1 or -(-tiles // (geo.warps - 1)) > -(-tiles // geo.warps)
 
 
+@pytest.mark.parametrize("ctx_dim", [32, 64, 96, 128])
+@pytest.mark.parametrize("k", [9, 16, 31, 33, 63, 64, 65, 100, 128, 129, 200, 255, 256])
+def test_peer_tf32_rows_takes_every_k_the_bf16_tier_takes(ctx_dim, k):
+    """Past 8 peers: whole viewers up to _tc_top's aim, then one viewer in
+    as many whole 32-row tiles as its K rows need (up to 256); c, then the
+    staging of h, in device memory only where they do not fit beside z (at
+    C = 128: c from 129 rows, the staging too from 208); the bytes
+    lstm_mma::smem_bytes counts, within a block's shared memory."""
+    fused_lstm.peer_tc_rows(ctx_dim, k, 3)
+    geo = fused_lstm.peer_tf32_rows(ctx_dim, k, 3)
+    real = geo.rows_v * k
+    top = fused_lstm._tc_top(ctx_dim) // 32 * 32
+    assert geo.rp % 32 == 0 and real <= geo.rp < real + 32 and geo.mt == 2 and not geo.w_res
+    assert geo.rows_v == max(1, top // k) and geo.rp <= max(top, -(-k // 32) * 32) <= 256
+    assert geo.smem == fused_lstm._tc_smem(True, geo.rp, real, 3, ctx_dim, 1, False, geo.c_smem, f32=True,
+                                           h_smem=geo.h_smem) <= SMEM
+    layouts = fused_lstm._TF32_PEER_LAYOUTS
+    for c_smem, h_smem in layouts[:layouts.index((geo.c_smem, geo.h_smem))]:  # every layout preferred is too big
+        assert fused_lstm._tc_smem(True, geo.rp, real, 3, ctx_dim, 1, False, c_smem, f32=True, h_smem=h_smem) > SMEM
+    assert geo.h_smem or (ctx_dim, geo.c_smem) == (128, False)
+    tiles = geo.rp * ctx_dim // 256
+    assert 1 <= geo.warps <= 16 and -(-tiles // geo.warps) == -(-tiles // 16)
+
+
 def test_peer_tf32_rows_at_the_serving_shape():
     """stacked-ss-crossuser-10s: K = 7 peers of C = 128, 9 viewers in 64
     rows, 16 warps of two 32 x 8 tiles each, 101,120 bytes."""
@@ -459,7 +483,7 @@ def test_peer_tf32_rows_refuses_what_it_does_not_take():
         fused_lstm.peer_tf32_rows(160, 7, 3)
     with pytest.raises(ValueError, match="ctx_dim 32, 64, 96 or 128, got 48"):
         fused_lstm.peer_tf32_rows(48, 7, 3)
-    for k in (0, 9, 64):
+    for k in (0, 257, 1000):
         with pytest.raises(ValueError, match=f"K = {k} peers"):
             fused_lstm.peer_tf32_rows(128, k, 3)
     with pytest.raises(ValueError, match="or 32 rows, got 16"):
