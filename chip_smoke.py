@@ -300,11 +300,37 @@ one line each or more:
    program's with the pool's peer futures, and on ``transformer-30`` a
    grouped ``predict_batch`` against the per-row path (GROUPED_BF16_TOL,
    the card's bf16 tier) with the ``grouped`` block in ``stats``. Any error
-   reply to a client of the daemon fails the run.
+   reply to a client of the daemon fails the run;
+19. trace ingest and the simulations: 864 head-pose logs written in the
+   Tsinghua / MMSys'17 layout (48 users x 18 videos, 60 s at about 30 Hz,
+   jittered timestamps, 1.56 M rows; ``write_logs``); ``inspect-traces
+   --validate --dataset-format tsinghua`` exits 0 on them and 2 on a copy
+   with one file's quaternions scaled by 1.1 (the sniffed run on the copy
+   reported); ``prepare-data --traces`` through the C library
+   (``csrc/fastio.c``) bit-equal to the plain numpy versions, with files/s,
+   rows/s and the parse alone C against numpy (host numbers, beside the
+   host's CPU and cores); ``stream-sim`` over one video's 48 viewers (600
+   frames at 10 Hz) on the checkpoints of the states phases 5, 7, 9 and 14
+   trained (``seq2seq-tf-30``, ``stacked-ss-crossuser --peers 4``, the 10 s
+   preset ``--peers 7``, ``transformer-30``), on the card against the CPU
+   per deadline (the f32 presets within one hit, 1 / (viewers x ticks),
+   plus the rounding; the transformer's bf16 tier within TF_SIM_TOL of the
+   CPU's f32), with predictions/s and ms a tick, and the transformer's
+   served answers at B = 48 on every TF_SIM_SAMPLE-th tick's windows and
+   peers against the port's bf16 plain versions on the CPU
+   (BF16_ANSWER_TOL); ``serve`` (``seq2seq-tf-30`` on
+   the video's ingested test split, the 10 s preset on its synthetic store)
+   and ``predict --traces --at-frame 400`` (K = 7 peers on the 10 s preset),
+   card against CPU; what ``eval --plot`` draws (``cli.eval_plot_series``:
+   the error curves of the model and of persistence, one window's
+   prediction) computed on the card against the CPU, and ``eval --plot``
+   and ``train --tb-dir`` on the card, their files where matplotlib and
+   tensorboard are installed, else the message that names the package.
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
-Then one JSON line on the kernels (launches on their main path, max error
+Then one JSON line on the kernels (launches on their main path and on
+every path driven, ``launches_on_paths``, max error
 over every check, kernel, plain and library times by CUDA events, and the
 bound: the larger of the work's FLOP over the peak of its type, the f32
 FMA peak or, for the bf16 tiers' products, the dense bf16 tensor-core
@@ -324,19 +350,22 @@ import functools
 import io
 import json
 import math
+import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import types
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from longterm360fov_tpu_torch import checkpoint, cli, data, geometry, infer, oracle, serving, traces, train, windows
+from longterm360fov_tpu_torch import (checkpoint, cli, data, datasets, evaluate, geometry, infer, native, oracle,
+                                      serving, traces, train, windows)
 from longterm360fov_tpu_torch.config import get_preset
 from longterm360fov_tpu_torch.features import equirect
 from longterm360fov_tpu_torch.models import cross_user, fusion, get_family, seq2seq, transformer
@@ -784,6 +813,9 @@ def record(name, ms, flop, reads, writes, peak=F32_FLOPS):
                    "bound_ms": b_ms, "bound_by": b_by}
 
 
+PATH_LAUNCHES = {}  # every path driven -> the launches of its kernels, for the kernels line
+
+
 def drive(path, fn, also=()):
     """Run one main path with every launch counter at 0 just before and read
     just after; fail if a kernel of the path (those whose launches it gives,
@@ -795,6 +827,7 @@ def drive(path, fn, also=()):
     names = [name for name, *_, p in KERNELS if p == path] + list(also)
     launches = {name: WRAPPERS[name].launches for name in names}
     print(f"{path}: main path launches {json.dumps(launches)}", flush=True)
+    PATH_LAUNCHES[path] = launches
     for name, n in launches.items():
         if n < 1:
             raise AssertionError(f"the main path '{path}' never launched kernel {name}")
@@ -5044,6 +5077,465 @@ def drive_slice_c(dev, smi):
     return readings
 
 
+# --------------------------------------------------------------- phase 19: trace ingest and the simulations
+
+
+# the logs the phase writes: the Tsinghua / MMSys'17 dataset's dimensions (Wu et al.; datasets.FORMATS["tsinghua"]),
+# 48 users x 18 videos, one CSV a (user, video) of rows playback_t, unix_t, qx, qy, qz, qw at about 30 Hz (each
+# timestamp jittered by up to 3 ms, so that resample interpolates), 60 s a log
+LOG_USERS, LOG_VIDEOS, LOG_SECONDS, LOG_HZ = 48, 18, 60.0, 30.0
+SIM_CASES = ((PRESET, None), (CU_PRESET, 4), (CU10_PRESET, 7), (TF_PRESET, None))  # stream-sim (preset, --peers)
+INGEST_PATHS = {  # the phase's main paths → the kernels each must launch
+    f"stream-sim {PRESET}": ["fused_serve"],
+    f"stream-sim {CU_PRESET} --peers 4": ["fused_serve_ctx", "fused_encode"],
+    f"stream-sim {CU10_PRESET} --peers 7": ["fused_serve_peers", "peer_context"],
+    f"stream-sim {TF_PRESET}": ["fused_encode_tokens_bf16", "fused_ar_decode_bf16"],
+    f"cli serve {PRESET}": ["fused_serve"],
+    f"cli serve {CU10_PRESET}": ["fused_serve_ctx"],  # serve feeds the past alone: a zero static context, as JAX's
+    f"predict --traces {PRESET}": ["fused_serve"],
+    f"predict --traces {CU10_PRESET}": ["fused_serve_peers", "peer_context"],
+    f"eval --plot {PRESET}": ["fused_serve"],
+    f"train --tb-dir {PRESET}": ["lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw",
+                                 "lstm_dw_pack", "fused_serve"],
+}
+# stream-sim, card against CPU, per deadline: the f32 presets one flipped tile apart, 1 / (viewers x ticks), plus
+# the two results' rounding to 4 places; the transformer's bf16 tier (the card's) against the CPU's f32 within about
+# four times the largest gap read (7e-4 on the preset's bench weights, 2e-4 on its trained state; PERF.md §6)
+SIM_ROUNDING, TF_SIM_TOL = 1e-4, 3e-3
+TF_SIM_SAMPLE = 30  # every 30th tick of the transformer's simulation: its answers against the bf16 plain versions
+SERVE_FLIPS = 2  # serve, card against CPU: frames whose hit may differ (rates rounded to 4 places, tiles to 2)
+STATES = {}  # preset -> checkpoint directory of the state its training phase returned (5, 7, 9, 14)
+
+
+def keep_state(cfg, state, root):
+    """Save a training phase's state for phase 19's stream-sim."""
+    ck = os.path.join(root, cfg.name)
+    checkpoint.Checkpointer(ck, cfg).save(state)
+    STATES[cfg.name] = ck
+
+
+def host_label():
+    """The host's CPU model and its cores, beside host-clock numbers."""
+    with open("/proc/cpuinfo") as f:
+        model = next((line.split(":", 1)[1].strip() for line in f if line.startswith("model name")), None)
+    if model is None and shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+        model = next((line.split(":", 1)[1].strip() for line in out.splitlines() if line.startswith("Model name")),
+                     None)
+    return f"host {model or 'CPU model not reported'}, nproc {len(os.sched_getaffinity(0))}"
+
+
+def write_logs(root, seed=0):
+    """LOG_USERS x LOG_VIDEOS head-pose logs in the Tsinghua layout under
+    ``root/userUU/videoVV.csv``; their rows. Each viewer's yaw and pitch mix
+    a path shared by the video's viewers (0.6) with the viewer's own (0.4):
+    yaw integrates an Ornstein-Uhlenbeck angular velocity (τ = 2 s, about
+    34°/s rms), pitch is one (τ = 3 s, about 10° rms), clipped to ±1.3 rad."""
+    rng = np.random.default_rng(seed)
+    n, dt = int(LOG_SECONDS * LOG_HZ), 1.0 / LOG_HZ
+
+    def ou(shape, tau, sigma):
+        out, v = np.empty(shape + (n,)), rng.normal(0.0, sigma * np.sqrt(tau / 2), shape)
+        kicks = rng.normal(0.0, sigma * np.sqrt(dt), shape + (n,))
+        for i in range(n):
+            v += -v * dt / tau + kicks[..., i]
+            out[..., i] = v
+        return out
+
+    shared = (np.cumsum(ou((LOG_VIDEOS,), 2.0, 0.6), -1) * dt + rng.uniform(-np.pi, np.pi, (LOG_VIDEOS, 1)),
+              ou((LOG_VIDEOS,), 3.0, 0.25))
+    yaw = 0.6 * shared[0] + 0.4 * np.cumsum(ou((LOG_USERS, LOG_VIDEOS), 2.0, 0.6), -1) * dt
+    pitch = np.clip(0.6 * shared[1] + 0.4 * ou((LOG_USERS, LOG_VIDEOS), 3.0, 0.25), -1.3, 1.3)
+    cy, sy, cp, sp = np.cos(yaw / 2), np.sin(yaw / 2), np.cos(pitch / 2), np.sin(pitch / 2)
+    quat = np.stack([-sy * sp, cy * sp, sy * cp, cy * cp], -1)  # (x, y, z, w) of yaw about z, then pitch
+    t = np.arange(n) * dt + rng.uniform(-0.003, 0.003, (LOG_USERS, LOG_VIDEOS, n))
+    for u in range(LOG_USERS):
+        os.makedirs(f"{root}/user{u:02d}")
+        for v in range(LOG_VIDEOS):
+            np.savetxt(f"{root}/user{u:02d}/video{v:02d}.csv",
+                       np.column_stack([t[u, v], 1.5e9 + 3600 * v + t[u, v], quat[u, v]]), fmt="%.6f",
+                       delimiter=",", header="PlaybackTime,UnixTime,qx,qy,qz,qw", comments="")
+    return LOG_USERS * LOG_VIDEOS * n
+
+
+def quiet_cli(argv):
+    """``cli.main(argv)`` with its standard output captured → (the output,
+    the SystemExit code or message; 0 when it returned)."""
+    buf = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main(argv)
+        except SystemExit as e:
+            code = e.code
+    return buf.getvalue(), code
+
+
+def last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+@contextlib.contextmanager
+def plain_ingest():
+    """The C library's entry points on the ingest path swapped for their
+    numpy plain versions."""
+    saved = datasets.parse_trace_bytes, native.window_fill
+    datasets.parse_trace_bytes, native.window_fill = native.parse_trace_plain, native.window_fill_plain
+    try:
+        yield
+    finally:
+        datasets.parse_trace_bytes, native.window_fill = saved
+
+
+def check_validate(logs, tmp):
+    """inspect-traces --validate --dataset-format tsinghua: exit 0 on the
+    logs, 2 on a copy with one file's quaternions scaled by 1.1. The layout
+    is pinned: sniffing (as JAX's) takes a 6-column file whose quaternions
+    are not unit for an euler_deg log, and that file then passes; the
+    sniffed run on the copy is reported."""
+    pin = ["--validate", "--dataset-format", "tsinghua"]
+    t0 = time.perf_counter()
+    out, code = quiet_cli(["inspect-traces", "--traces", logs, *pin])
+    wall = time.perf_counter() - t0
+    bad = os.path.join(tmp, "logs_bad")
+    shutil.copytree(logs, bad)
+    victim = os.path.join(bad, "user01", "video01.csv")
+    rows = np.loadtxt(victim, delimiter=",", skiprows=1)
+    rows[:, 2:6] *= 1.1
+    np.savetxt(victim, rows, fmt="%.6f", delimiter=",", header="PlaybackTime,UnixTime,qx,qy,qz,qw", comments="")
+    bad_out, bad_code = quiet_cli(["inspect-traces", "--traces", bad, *pin])
+    fails = [line.strip() for line in bad_out.splitlines() if line.startswith("FAIL") or "error:" in line]
+    sniffed, sniffed_code = quiet_cli(["inspect-traces", "--traces", bad, "--validate"])
+    victim_line = next(line for line in sniffed.splitlines() if "user01/video01.csv" in line)
+    print(f"inspect-traces {' '.join(pin)}: exit {code}, '{out.strip().splitlines()[-1]}' in {wall:.2f} s; on the "
+          f"copy with user01/video01.csv's quaternions x 1.1: exit {bad_code}, {fails} "
+          f"'{bad_out.strip().splitlines()[-1]}'; sniffed (no --dataset-format) on the copy: exit {sniffed_code}, "
+          f"'{victim_line.strip()}'", flush=True)
+    shutil.rmtree(bad)
+    if code != 0 or bad_code != 2 or len(fails) != 2:
+        raise AssertionError("inspect-traces --validate: the logs must pass (exit 0) and the scaled copy fail (2)")
+
+
+def check_prepare(logs, tmp, rows, smi):
+    """prepare-data --traces through the C library and through the plain
+    versions: the npz bit-equal; files/s, rows/s, and the parse alone, C
+    against numpy (host numbers)."""
+    outs, walls = {}, {}
+    for route in ("C", "plain"):
+        out = os.path.join(tmp, f"ingest-{route}.npz")
+        with plain_ingest() if route == "plain" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            text, code = quiet_cli(["prepare-data", "--traces", logs, "--out", out])
+            walls[route] = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"prepare-data --traces ({route}) exited {code}: {text}")
+        outs[route] = {split: data.load_packed(path) for split, path in
+                       (("train", out), ("test", out.replace(".npz", "_test.npz")))}
+    same = all(outs["C"][sp].keys() == outs["plain"][sp].keys() and all(
+        np.array_equal(outs["C"][sp][k], outs["plain"][sp][k]) for k in outs["C"][sp]) for sp in ("train", "test"))
+    blobs = []
+    for root, _, files in sorted(os.walk(logs)):
+        for name in sorted(files):
+            with open(os.path.join(root, name), "rb") as f:
+                blobs.append(f.read())
+    parse_s = {}
+    for route, fn in (("C", native.parse_trace_bytes), ("plain", native.parse_trace_plain)):
+        t0 = time.perf_counter()
+        parsed = [fn(b) for b in blobs]
+        parse_s[route] = time.perf_counter() - t0
+        if route == "C":
+            c_parsed = parsed
+    parse_same = all(np.array_equal(a, b) for a, b in zip(c_parsed, parsed))
+    n_files, mb = len(blobs), sum(map(len, blobs)) / 1e6
+    train_d = outs["C"]["train"]
+    print(f"prepare-data --traces: {n_files} files, {rows} rows, {mb:.1f} MB → {len(train_d['past'])} train / "
+          f"{len(outs['C']['test']['past'])} test windows; C library {walls['C']:.2f} s ({n_files / walls['C']:.1f} "
+          f"files/s, {rows / walls['C']:.0f} rows/s), plain versions {walls['plain']:.2f} s; npz bit-equal {same}; "
+          f"the parse alone: C {parse_s['C']:.3f} s ({rows / parse_s['C']:.0f} rows/s), numpy {parse_s['plain']:.3f} "
+          f"s, x{parse_s['plain'] / parse_s['C']:.1f}, arrays bit-equal {parse_same} ({host_label()}; card {smi})",
+          flush=True)
+    if not (same and parse_same):
+        raise AssertionError("prepare-data --traces through the C library differs from the plain versions")
+    return os.path.join(tmp, "ingest-C.npz")
+
+
+def sim_argv(preset, peers, video_dir, device):
+    return ["stream-sim", "--preset", preset, "--ckpt-dir", STATES[preset], "--traces", video_dir, "--device",
+            device, *([] if peers is None else ["--peers", str(peers)])]
+
+
+def sim_label(preset, peers):
+    return f"stream-sim {preset}" + ("" if peers is None else f" --peers {peers}")
+
+
+SIM_CHUNK_TICKS = 45  # ticks of one CPU reference task: the simulations split over the host's cores
+
+
+SIM_DEADLINES = (1, 10, 30)  # stream-sim's default --deadlines
+
+
+def sim_ticks(cfg, peers, n_frames):
+    """(h_in, the frames a tick looks ahead, the ticks) of stream_simulation."""
+    ahead = max(max(SIM_DEADLINES), cfg.model.h_out) if peers else max(SIM_DEADLINES)
+    return cfg.model.h_in, ahead, n_frames - ahead - cfg.model.h_in
+
+
+def viewer_stack(video_dir, cfg):
+    """The viewers of ``video_dir`` as stream-sim reads them, cut to the
+    shortest → (V, T, 3) float32."""
+    xyz = [t.xyz for t in datasets.load_dataset(video_dir, rate_hz=cfg.rate_hz).traces]
+    return np.stack([np.asarray(x[:min(map(len, xyz))], np.float32) for x in xyz])
+
+
+def trained_params(cfg, ck, device):
+    """The params of the checkpoint ``ck`` (a state phase 5, 7, 9 or 14
+    trained, STATES) on ``device``."""
+    return cli._serving_params(types.SimpleNamespace(ckpt_dir=ck, params=None), cfg, get_family(cfg.model_family),
+                               device)
+
+
+def cpu_sim_chunk(preset, ck, xyz, peers, lo, hi):
+    """One CPU reference task of start_cpu_sims, run in a worker process
+    on one thread: the simulation's ticks [lo, hi) (the frames they read,
+    cut from the (V, T, 3) ``xyz``) from the checkpoint ``ck``, as
+    stream-sim runs them → (hits by deadline, the tiles a frame summed
+    over the ticks)."""
+    torch.set_num_threads(1)
+    cfg = get_preset(preset)
+    h_in, ahead, _ = sim_ticks(cfg, peers, xyz.shape[1])
+    hits, tiles, _, ticks, _ = infer._stream_counts(
+        trained_params(cfg, ck, "cpu"), cfg, list(xyz[:, lo - h_in:hi + ahead]), device="cpu",
+        deadlines=SIM_DEADLINES, tile_rows=6, tile_cols=12, fov_deg=90.0, impl="fused", n_peers=peers)
+    if ticks != hi - lo:
+        raise AssertionError(f"{preset}: a CPU reference task of {ticks} ticks for [{lo}, {hi})")
+    return dict(zip(map(str, SIM_DEADLINES), hits.tolist())), tiles
+
+
+def card_stream_sims(video_dir, dev, smi):
+    """stream-sim on the four presets' trained checkpoints over one video's
+    48 viewers, on the card under drive → {label: its JSON}."""
+    card = {}
+    for preset, peers in SIM_CASES:
+        label = sim_label(preset, peers)
+        (text, code), _ = drive(label, lambda: quiet_cli(sim_argv(preset, peers, video_dir, str(dev))),
+                                also=INGEST_PATHS[label])
+        if code != 0:
+            raise AssertionError(f"{label} exited {code}: {text}")
+        card[label] = r = last_json(text)
+        print(f"{label}: {r['viewers']} viewers x {r['ticks']} ticks on the card: {json.dumps(r)}; "
+              f"{r['viewers'] / r['predictions_per_sec'] * 1e3:.3f} ms a tick (host clock; {smi})", flush=True)
+    return card
+
+
+def start_cpu_sims(video_dir, pool):
+    """The same simulations on the CPU, split by ticks into tasks of
+    SIM_CHUNK_TICKS (the hit counts add up), submitted to ``pool`` (one
+    worker process a core), the larger models first → [(label, future)]."""
+    futures = []
+    for preset, peers in reversed(SIM_CASES):
+        cfg = get_preset(preset)
+        xyz = viewer_stack(video_dir, cfg)
+        # stream-sim's --peers -1: the preset's K for the families that take peers
+        takes_peers = getattr(get_family(cfg.model_family), "batch_extras", None) is not None
+        k = peers if peers is not None else (cfg.n_other_users if takes_peers else 0)
+        h_in, _, n_ticks = sim_ticks(cfg, k, xyz.shape[1])
+        for lo in range(h_in, h_in + n_ticks, SIM_CHUNK_TICKS):
+            futures.append((sim_label(preset, peers),
+                            pool.submit(cpu_sim_chunk, preset, STATES[preset], xyz, k, lo,
+                                        min(lo + SIM_CHUNK_TICKS, h_in + n_ticks))))
+    return futures
+
+
+def check_cpu_sims(card, futures, t0, workers):
+    """The card's simulations against the CPU's, per deadline."""
+    parts = [(label, f.result()) for label, f in futures]
+    print(f"stream-sim on the CPU: {len(parts)} tasks of up to {SIM_CHUNK_TICKS} ticks over {workers} worker "
+          f"processes of one thread, done {time.perf_counter() - t0:.1f} s after they started, beside the serve, "
+          f"predict and report checks ({host_label()})", flush=True)
+    bad = []
+    for preset, peers in SIM_CASES:
+        label = sim_label(preset, peers)
+        got = card[label]
+        n = got["viewers"] * got["ticks"]
+        hits = {dl: sum(p[0][dl] for lab, p in parts if lab == label) for dl in got["hit_rate_by_deadline"]}
+        ref = {dl: round(h / n, 4) for dl, h in hits.items()}
+        tiles = sum(p[1] for lab, p in parts if lab == label) / got["ticks"]
+        tol = TF_SIM_TOL if preset == TF_PRESET else 1.0 / n + SIM_ROUNDING
+        gap = max(abs(got["hit_rate_by_deadline"][dl] - ref[dl]) for dl in ref)
+        print(f"{label}: card against the CPU, hit rate by deadline {json.dumps(got['hit_rate_by_deadline'])} vs "
+              f"{json.dumps(ref)} (CPU hits {json.dumps(hits)} of {n}), max gap {gap:.5f} (tolerance {tol:.5f}); "
+              f"tiles a frame {got['mean_tiles_per_frame']} vs {tiles:.4f}", flush=True)
+        if gap > tol:
+            bad.append(label)
+    if bad:
+        raise AssertionError(f"stream-sim on the card differs from the CPU: {bad}")
+
+
+def check_tf_sim_answers(video_dir, dev, smi):
+    """The transformer's stream-sim at its own batch, B = 48: on every
+    TF_SIM_SAMPLE-th tick's windows and peers (as the simulation forms
+    them), the card's served answers (the bf16 kernels) against the port's
+    bf16 plain versions on the CPU (BF16_ANSWER_TOL), and the tiles each
+    predicted frame fetches compared (reported)."""
+    cfg = get_preset(TF_PRESET)
+    xyz = viewer_stack(video_dir, cfg)
+    k, h_out = cfg.n_other_users, cfg.model.h_out
+    h_in, _, n_ticks = sim_ticks(cfg, k, xyz.shape[1])
+    batches = []
+    for t in range(h_in, h_in + n_ticks, TF_SIM_SAMPLE):
+        fut = xyz[:, t:t + h_out]
+        batches.append({"past": xyz[:, t - h_in:t],
+                         "other_future": np.stack([np.roll(fut, -(j + 1), axis=0) for j in range(k)], 1)})
+    params, fam = trained_params(cfg, STATES[TF_PRESET], dev), get_family(cfg.model_family)
+    with torch.inference_mode():
+        card = torch.cat([infer.predict_xyz(params, cfg, fam, {key: torch.as_tensor(v, device=dev)
+                                                               for key, v in b.items()}, impl="fused")
+                          for b in batches]).cpu()
+        full = {key: torch.as_tensor(np.concatenate([b[key] for b in batches])) for key in batches[0]}
+        plain = infer.predict_xyz(trained_params(cfg, STATES[TF_PRESET], "cpu"), cfg, tier_family(torch.bfloat16),
+                                  full, impl="fused")
+    err = (card - plain).abs().max().item()
+    tiles = (infer.tiles_for_fov(card) == infer.tiles_for_fov(plain)).all(-1).float().mean().item()
+    print(f"stream-sim {TF_PRESET}: {len(batches)} ticks of {xyz.shape[0]} viewers (every {TF_SIM_SAMPLE}th), the "
+          f"card's bf16 answers against the CPU's bf16 plain versions: max |xyz| gap {err:.3e} (tolerance "
+          f"{BF16_ANSWER_TOL}); frames with equal tiles {tiles:.4f} (reported; {smi})", flush=True)
+    if not (torch.isfinite(card).all() and err <= BF16_ANSWER_TOL):
+        raise AssertionError(f"stream-sim {TF_PRESET}: the card's answers differ from the bf16 plain versions")
+
+
+def check_cli_serve(npz, dev, smi):
+    """serve on seq2seq-tf-30 (the test split of one video's ingested
+    windows) and on the 10 s preset (its synthetic store: the 60 s logs hold
+    no 200-frame test window), card against CPU."""
+    for preset, extra in ((PRESET, ["--data", npz]), (CU10_PRESET, [])):
+        label = f"cli serve {preset}"
+        argv = ["serve", "--preset", preset, "--ckpt-dir", STATES[preset], *extra]
+        cpu, code = quiet_cli([*argv, "--device", "cpu"])
+        (got, code_card), _ = drive(label, lambda: quiet_cli([*argv, "--device", str(dev)]), also=INGEST_PATHS[label])
+        if code or code_card:
+            raise AssertionError(f"{label} exited {code_card} on the card, {code} on the CPU: {got}{cpu}")
+        got, ref = last_json(got), last_json(cpu)
+        frames = got["n_windows"] * got["horizon"]
+        tol = {"hit_rate": SERVE_FLIPS / frames + SIM_ROUNDING, "tiles_per_frame": 0.01 + SERVE_FLIPS * 72 / frames}
+        gaps = {k: abs(got[k] - ref[k]) for k in got if k.endswith(("hit_rate", "tiles_per_frame"))}
+        print(f"{label}: card {json.dumps(got)}; CPU {json.dumps(ref)}; gaps {json.dumps(gaps)} (tolerance "
+              f"{json.dumps(tol)}; {smi})", flush=True)
+        same = all(got[k] == ref[k] for k in ("n_windows", "horizon", "grid", "fov_deg"))
+        if not same or any(g > tol["hit_rate" if k.endswith("hit_rate") else "tiles_per_frame"]
+                           for k, g in gaps.items()):
+            raise AssertionError(f"{label}: the card's prefetch scores differ from the CPU's")
+
+
+def check_predict_traces(video_dir, tmp, dev, smi):
+    """predict --traces at frame 400 of the one-video logs (48 viewers; the
+    10 s preset with K = 7 peers), card against CPU."""
+    for preset in (PRESET, CU10_PRESET):
+        label = f"predict --traces {preset}"
+        argv = ["predict", "--preset", preset, "--ckpt-dir", STATES[preset], "--traces", video_dir, "--at-frame",
+                "400", "--tiles"]
+        cpu = predict_rows(argv, "cpu", tmp, "cpu")
+        card, _ = drive(label, lambda: predict_rows(argv, str(dev), tmp, "card"), also=INGEST_PATHS[label])
+        compare_predictions(label, card, cpu, smi)
+
+
+def plot_series(npz, device):
+    """What eval --plot draws (``cli.eval_plot_series``) for seq2seq-tf-30's
+    trained state on the test split of ``npz``, computed on ``device``."""
+    cfg = get_preset(PRESET)
+    params = trained_params(cfg, STATES[PRESET], device)
+    _, test_d = cli._load_or_synth_data(types.SimpleNamespace(data=npz), cfg)
+    return cli.eval_plot_series(params, cfg, test_d, evaluate.evaluate(params, cfg, test_d, impl="fused"), device)
+
+
+def check_reports(npz, tmp, dev, smi):
+    """What eval --plot draws, computed on the card against the CPU (each
+    curve is a mean of per-window angles, each within ANGLE_TOL of the
+    CPU's, so within it too); then eval --plot and train --tb-dir on the
+    card: the files where matplotlib and tensorboard are installed, else
+    the message that names the missing package."""
+    import importlib.util
+
+    label = f"eval --plot {PRESET}"
+    (curves, pred), _ = drive(label, lambda: plot_series(npz, dev), also=INGEST_PATHS[label])
+    ref_curves, ref_pred = plot_series(npz, "cpu")
+    gaps = {name: float(np.abs(np.subtract(c, ref_curves[name])).max()) for name, c in curves.items()}
+    a, b = pred.astype(np.float64), ref_pred.astype(np.float64)
+    d_pred = float(np.arctan2(np.linalg.norm(np.cross(a, b), axis=-1), (a * b).sum(-1)).max())
+    print(f"{label}: the curves and one window's prediction on the card against the CPU: max curve gaps "
+          f"{json.dumps(gaps)} degrees, prediction {d_pred:.3e} rad (tolerance {ANGLE_TOL} rad; {smi})", flush=True)
+    if curves.keys() != ref_curves.keys() or not (max(gaps.values()) <= math.degrees(ANGLE_TOL)
+                                                  and d_pred <= ANGLE_TOL):
+        raise AssertionError(f"{label}: what the card computes for the plots differs from the CPU's")
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    prefix = os.path.join(tmp, "plot")
+    text, code = quiet_cli(["eval", "--preset", PRESET, "--ckpt-dir", STATES[PRESET], "--data", npz, "--device",
+                            str(dev), "--plot", prefix, "--json"])
+    if have_mpl:
+        pngs = {os.path.basename(p): os.path.getsize(p) if os.path.exists(p) else 0
+                for p in (f"{prefix}_curve.png", f"{prefix}_traj.png")}
+        ok = code == 0 and all(pngs.values())
+        print(f"eval --plot on the card: exit {code}, bytes written {json.dumps(pngs)}", flush=True)
+    else:
+        ok = isinstance(code, str) and "matplotlib" in code
+        print(f"eval --plot on the card: matplotlib is not installed; exit message {code!r}", flush=True)
+    if not ok:
+        raise AssertionError(f"eval --plot: {code} {text[-500:]}")
+    have_tb = importlib.util.find_spec("tensorboard") is not None
+    tb = os.path.join(tmp, "tb")
+    argv = ["train", "--preset", PRESET, "--data", npz, "--steps", "2", "--batch-size", "1024", "--device", str(dev),
+            "--tb-dir", tb]
+    if have_tb:
+        (text, code), _ = drive(f"train --tb-dir {PRESET}", lambda: quiet_cli(argv),
+                                also=INGEST_PATHS[f"train --tb-dir {PRESET}"])
+        events = [f for f in os.listdir(tb) if f.startswith("events.out.tfevents")] if os.path.isdir(tb) else []
+        ok = code == 0 and bool(events)
+        print(f"train --tb-dir on the card: exit {code}, event files {events}", flush=True)
+    else:
+        text, code = quiet_cli(argv)
+        ok = isinstance(code, str) and "tensorboard" in code
+        print(f"train --tb-dir on the card: tensorboard is not installed; exit message {code!r}", flush=True)
+    if not ok:
+        raise AssertionError(f"train --tb-dir: {code} {text[-500:]}")
+
+
+def drive_ingest(dev, smi):
+    """Phase 19: the logs written, validated, ingested through the C
+    library (against the plain versions), then stream-sim, serve, predict
+    --traces, eval --plot and train --tb-dir on the card against the CPU."""
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = os.path.join(tmp, "logs")
+        t0 = time.perf_counter()
+        rows = write_logs(logs)
+        print(f"ingest: {LOG_USERS} users x {LOG_VIDEOS} videos, {LOG_SECONDS:.0f} s logs at about {LOG_HZ:.0f} Hz "
+              f"({rows} rows) written in {time.perf_counter() - t0:.1f} s", flush=True)
+        check_validate(logs, tmp)
+        npz_all = check_prepare(logs, tmp, rows, smi)
+        # one video's 48 viewers: the simulations' audience
+        video_dir = os.path.join(tmp, "video00")
+        for u in range(LOG_USERS):
+            os.makedirs(os.path.join(video_dir, f"user{u:02d}"))
+            shutil.copy(os.path.join(logs, f"user{u:02d}", "video00.csv"), os.path.join(video_dir, f"user{u:02d}"))
+        npz_video = os.path.join(tmp, "video00.npz")
+        text, code = quiet_cli(["prepare-data", "--traces", video_dir, "--out", npz_video])
+        if code:
+            raise AssertionError(f"prepare-data --traces on one video exited {code}: {text}")
+        card = card_stream_sims(video_dir, dev, smi)
+        # the CPU reference of the simulations runs in worker processes beside the checks that follow
+        workers = len(os.sched_getaffinity(0))
+        with ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+            t0 = time.perf_counter()
+            futures = start_cpu_sims(video_dir, pool)
+            try:
+                check_tf_sim_answers(video_dir, dev, smi)
+                check_cli_serve(npz_video, dev, smi)
+                check_predict_traces(video_dir, tmp, dev, smi)
+                check_reports(npz_all, tmp, dev, smi)
+                check_cpu_sims(card, futures, t0, workers)
+            finally:
+                for _, f in futures:
+                    f.cancel()
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only on the card")
@@ -5057,6 +5549,8 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi, flush=True)
+    # the states that phases 5, 7, 9 and 14 train, saved for phase 19's simulations
+    state_dir = tempfile.TemporaryDirectory()
 
     phase("2 build")
     # 2. build every kernel source, one nvcc each, started together
@@ -5112,6 +5606,7 @@ def main():
     # 5. seq2seq-tf-30 training
     tcfg = get_preset(PRESET, batch_size=TRAIN_B, steps=40, eval_every=10, ckpt_every=20, train_impl="fused")
     trained, train_d, s2s_train = drive_training(tcfg, S2S_TRAIN, dev, also=["fused_serve"])
+    keep_state(tcfg, trained, state_dir.name)
     time_training(tcfg, trained, train_d, S2S_TRAIN, smi, plain_iters=5)
     time_lstm_kernels(dev, smi)
     time_dw_pack(dev, smi)
@@ -5137,6 +5632,7 @@ def main():
     ctrained, ctrain_d, cu_train = drive_training(ctcfg, CU_TRAIN, dev, also=[
         "fused_serve", "fused_encode", "lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw",
         "lstm_dw_pack"])
+    keep_state(ctcfg, ctrained, state_dir.name)
     step = time_training(ctcfg, ctrained, ctrain_d, CU_TRAIN, smi, plain_iters=2)
     profile_device(f"{CU_TRAIN}: fast step", step, 5, smi)
     time_ss_kernels(dev, smi)
@@ -5171,6 +5667,7 @@ def main():
     c10trained, c10train_d, cu10_train = drive_training(c10tcfg, CU10_TRAIN, dev, also=[
         "fused_serve_peers", "peer_context", "lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw",
         "ss_decode_dproj", "lstm_dw_pack"], step_tol=ALIGN_STEP_REL_TOL)
+    keep_state(c10tcfg, c10trained, state_dir.name)
     step = time_training(c10tcfg, c10trained, c10train_d, CU10_TRAIN, smi, plain_iters=1, kernel_iters=5)
     peer_bwd_share(f"{CU10_TRAIN}: fast step", profile_device(f"{CU10_TRAIN}: fast step", step, 3, smi), smi)
     del step, c10trained
@@ -5253,6 +5750,7 @@ def main():
     ttcfg = get_preset(TF_PRESET, batch_size=TRAIN_B, steps=20, eval_every=10, ckpt_every=10)
     ttrained, ttrain_d, tf_train = drive_training(ttcfg, TF_TRAIN, dev, also=[
         "fused_encode_tokens_bf16", "fused_ar_decode_bf16"], step_check=False, resume_tol=0.0)
+    keep_state(ttcfg, ttrained, state_dir.name)
     tf_grad_check(ttcfg, ttrained, ttrain_d)
     time_tf_step(ttcfg, ttrained, ttrain_d, TF_TRAIN, smi)
     time_encode_train(dev, ttrained.params, ttcfg, TRAIN_B, smi)
@@ -5334,6 +5832,14 @@ def main():
     drive_slice_c(dev, smi)
     torch.cuda.empty_cache()
 
+    phase("19 trace ingest and the simulations")
+    # 19. logs written in the Tsinghua layout, validated, ingested through the
+    # C library; stream-sim, serve, predict --traces, eval --plot and train
+    # --tb-dir on the card against the CPU
+    drive_ingest(dev, smi)
+    state_dir.cleanup()
+    torch.cuda.empty_cache()
+
     phase("done")
     launches = {S2S_SERVE: s2s_serve, S2S_CELL: s2s_cell, S2S_DECODE: s2s_decode, S2S_TRAIN: s2s_train,
                 CU_SERVE: cu_serve, CU_TRAIN: cu_train, CU10_SERVE: cu10_serve, CU10_TRAIN: cu10_train,
@@ -5343,7 +5849,8 @@ def main():
                 CU10_SERVE_BF16: cu10_serve_bf16, S2S_CELL_BF16: s2s_cell_bf16}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
-         "launches": launches[path][name], "max_abs_err": ERRS[name], **TIMES[name]}
+         "launches": launches[path][name], "max_abs_err": ERRS[name], **TIMES[name],
+         "launches_on_paths": {p: n[name] for p, n in PATH_LAUNCHES.items() if name in n}}
         for name, src, rep, _, path in KERNELS
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,26 @@
 """Command line of the port: ``python -m longterm360fov_tpu_torch``.
 
-``presets`` lists the experiment presets; ``prepare-data`` packs the
-synthetic store's windows (with ``--features``, each window's video
-features) into an npz; ``extract-features`` turns per-video frame arrays
-into per-frame feature vectors; ``train`` trains a preset and ``eval``
-evaluates its checkpoint; ``export`` flattens a checkpoint's params into one
-npz; ``predict`` writes one JSON line of predicted trajectories per viewer;
-``serve-daemon`` runs the online TCP server (twins of the JAX subcommands);
-``serve-bench`` times the serve path (twin of the JAX ``serve-bench``) and
-prints one JSON line. On the card the time comes from CUDA events and the
+``presets`` lists the experiment presets; ``inspect-traces`` previews or
+validates a directory of head-pose logs; ``prepare-data`` packs the windows
+of those logs (``--traces``) or of the synthetic store (with
+``--features``, each window's video features) into an npz;
+``extract-features`` turns per-video frame arrays into per-frame feature
+vectors; ``train`` trains a preset and ``eval`` evaluates its checkpoint
+(``--plot``: the error curve and one trajectory as PNGs); ``export``
+flattens a checkpoint's params into one npz; ``predict`` writes one JSON
+line of predicted trajectories per viewer; ``serve`` scores tile prefetch
+on the test split and ``stream-sim`` in a tick-by-tick streaming
+simulation; ``serve-daemon`` runs the online TCP server (twins of the JAX
+subcommands); ``serve-bench`` times the serve path (twin of the JAX
+``serve-bench``) and prints one JSON line. On the card the time comes from CUDA events and the
 line names the card and its power limit; on ``--device cpu`` it is the host
 clock, for rehearsal only.
 
 Every subcommand that computes on a device takes ``--device``, ``cuda`` by
 default (``cpu`` runs the kernels' plain versions), and runs there; the f32
 products and convolutions run in full f32 on the card
-(``exact_f32_matmul``). ``prepare-data`` is host numpy and ``export`` reads
-the checkpoint on the CPU: they take none.
+(``exact_f32_matmul``). ``prepare-data`` and ``inspect-traces`` are host
+code and ``export`` reads the checkpoint on the CPU: they take none.
 """
 
 from __future__ import annotations
@@ -41,7 +45,6 @@ _NOT_PORTED = {
     "data_parallel": "--data-parallel: ROADMAP.md, slice 'parallelism'",
     "seq_parallel": "--seq-parallel: ROADMAP.md, slice 'parallelism'",
     "pipeline_parallel": "--pipeline-parallel: ROADMAP.md, slice 'parallelism'",
-    "tb_dir": "--tb-dir: ROADMAP.md, slice 'the TCP daemon and CLI'",
 }
 # serve-bench and predict --impl, JAX's names: "fused" the hand-written
 # kernels, "xla" the plain PyTorch path
@@ -191,13 +194,17 @@ def serve_bench(
 
 
 def _build_parser() -> argparse.ArgumentParser:
+    from .datasets import FORMATS
+
     p = argparse.ArgumentParser(prog="longterm360fov_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     sub.add_parser("presets", help="list experiment presets")
 
     pd = sub.add_parser("prepare-data", help="traces → packed windows npz")
     pd.add_argument("--out", required=True)
-    pd.add_argument("--traces", help="directory of trace logs (not ported yet: raises)")
+    pd.add_argument("--traces", help="directory of trace logs (per-video subdirs); synthetic store if omitted")
+    pd.add_argument("--dataset-format", default="auto",
+                    help="trace layout: auto|tsinghua|quat_wxyz|quat_xyzw|euler_deg|euler_rad")
     pd.add_argument("--h-in", type=int, default=30)
     pd.add_argument("--h-out", type=int, default=30)
     pd.add_argument("--rate-hz", type=float, default=10.0)
@@ -253,13 +260,14 @@ def _build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--data-parallel", action="store_true")
     tr.add_argument("--seq-parallel", type=int, default=0)
     tr.add_argument("--pipeline-parallel", type=int, default=0)
-    tr.add_argument("--tb-dir")
+    tr.add_argument("--tb-dir", help="TensorBoard scalar log dir (optional; needs the tensorboard package)")
 
     ev = sub.add_parser("eval", help="evaluate a checkpoint")
     ev.add_argument("--preset", required=True)
     ev.add_argument("--ckpt-dir", required=True)
     ev.add_argument("--data")
     ev.add_argument("--json", action="store_true")
+    ev.add_argument("--plot", help="write <PLOT>_curve.png and <PLOT>_traj.png (needs matplotlib)")
     ev.add_argument("--device", default="cuda", help=DEVICE_HELP)
     ev.add_argument("--peer-align", action="store_true", dest="peer_align")
 
@@ -272,7 +280,7 @@ def _build_parser() -> argparse.ArgumentParser:
     group = pr.add_mutually_exclusive_group(required=True)
     group.add_argument("--ckpt-dir", help="checkpoint directory of `train`")
     group.add_argument("--params", help="flat npz from `export` (the port's or the JAX package's)")
-    pr.add_argument("--traces", help="trace dir (not ported yet: raises); synthetic store if omitted")
+    pr.add_argument("--traces", help="trace dir; synthetic store if omitted")
     pr.add_argument("--dataset-format", default="auto")
     pr.add_argument("--at-frame", type=int, default=None, metavar="N",
                     help="predict from the window ending at frame N (exclusive); default: each trace's "
@@ -330,15 +338,50 @@ def _build_parser() -> argparse.ArgumentParser:
     ex.add_argument("--out", required=True)
     ex.add_argument("--step", type=int, help="default: latest")
 
-    for cp in (sb, tr, ev, sd, ex):
+    sv = sub.add_parser("serve", help="streaming-prefetch simulation: hit rate + bandwidth")
+    sv.add_argument("--preset", required=True)
+    sv.add_argument("--ckpt-dir", required=True)
+    sv.add_argument("--data")
+    sv.add_argument("--fov", type=float, default=90.0)
+    sv.add_argument("--tile-rows", type=int, default=6)
+    sv.add_argument("--tile-cols", type=int, default=12)
+    sv.add_argument("--device", default="cuda", help=DEVICE_HELP)
+
+    st = sub.add_parser("stream-sim", help="continuous streaming simulation: per-deadline prefetch hit rates")
+    st.add_argument("--preset", required=True)
+    st.add_argument("--ckpt-dir", required=True)
+    st.add_argument("--traces", help="trace dir; synthetic store if omitted")
+    st.add_argument("--dataset-format", default="auto")
+    st.add_argument("--deadlines", default="1,10,30")
+    st.add_argument("--peers", type=int, default=-1,
+                    help="cross-viewer context size K in the simulation (peers = other simulated viewers' known "
+                    "futures); -1 = the preset's K for peer-consuming families")
+    st.add_argument("--fov", type=float, default=90.0)
+    st.add_argument("--impl", default="fused", choices=SERVE_IMPLS,
+                    help="fused = the hand-written CUDA serve kernels (the default); xla = the plain PyTorch path")
+    st.add_argument("--device", default="cuda", help=DEVICE_HELP)
+
+    it = sub.add_parser("inspect-traces",
+                        help="sniff a trace directory: per-file layout guess, rate, ranges, quaternion-norm "
+                        "sanity (check the dataset adapters before prepare-data)")
+    it.add_argument("--traces", required=True)
+    it.add_argument("--limit", type=int, default=20, help="max files shown")
+    it.add_argument("--validate", action="store_true",
+                    help="strict mode: every file must parse unambiguously and pass all sanity checks; exit "
+                    "code 2 on any failure")
+    it.add_argument("--dataset-format", default="auto", choices=["auto", *sorted(FORMATS)],
+                    help="pin the layout instead of sniffing")
+    it.add_argument("--rate", type=float, default=10.0, help="resample Hz")
+
+    for cp in (sb, tr, ev, sd, ex, sv):
         cp.add_argument(
             "--peers", type=int, default=-1,
             help="cross-viewer context size K for this run (the params are "
             "K-agnostic); -1 = the preset's K",
         )
-    for cp in (pr, sd, ex):
+    for cp in (pr, sd, ex, sv, st):
         cp.add_argument("--peer-align", action="store_true", dest="peer_align")
-    for cp in (sb, tr, ev, pr, sd, ex):
+    for cp in (sb, tr, ev, pr, sd, ex, sv, st):
         # as in JAX: --h-in/--h-out (like --peer-align) change what the
         # params mean, so they are part of the model hash and every
         # subcommand that builds or loads the model takes them
@@ -368,9 +411,10 @@ def _overrides(args, **over) -> dict:
     for k in ("model_h_in", "model_h_out"):
         if getattr(args, k, None) is not None:
             over[k] = getattr(args, k)
-    # predict keeps its own --peers: how many peers to assemble per request,
-    # which may differ from the preset's K (the model reads K from the shape)
-    if getattr(args, "cmd", None) != "predict" and getattr(args, "peers", -1) >= 0:
+    # predict and stream-sim keep their own --peers: how many peers to
+    # assemble per request, which may differ from the preset's K (the model
+    # reads K from the shape)
+    if getattr(args, "cmd", None) not in ("predict", "stream-sim") and getattr(args, "peers", -1) >= 0:
         over["n_other_users"] = args.peers
     return over
 
@@ -461,9 +505,14 @@ def cmd_prepare_data(args):
     from . import traces as T
 
     if args.traces:
-        raise SystemExit("not ported yet: prepare-data --traces: ROADMAP.md, slice C (trace ingest)")
-    store = T.synthetic_store(n_users=args.n_users, n_videos=args.n_videos,
-                              n_frames=args.n_frames, rate_hz=args.rate_hz)
+        from . import datasets as DSETS
+
+        store = DSETS.load_dataset(args.traces, fmt=args.dataset_format, rate_hz=args.rate_hz)
+        if not len(store):
+            raise SystemExit(f"no parseable traces under {args.traces} (format={args.dataset_format})")
+    else:
+        store = T.synthetic_store(n_users=args.n_users, n_videos=args.n_videos,
+                                  n_frames=args.n_frames, rate_hz=args.rate_hz)
     video_features = None
     if args.features:
         with np.load(args.features) as z:
@@ -556,6 +605,11 @@ def cmd_train(args):
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"not ported yet: {item}")
+    if args.tb_dir:
+        try:  # checked before the data and the model are made
+            from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+        except ImportError:
+            raise SystemExit("train --tb-dir needs the tensorboard package, which is not installed") from None
     over = {k: getattr(args, k) for k in ("steps", "batch_size", "lr", "accum", "gc_weight",
                                           "train_compute")
             if getattr(args, k) is not None}
@@ -590,7 +644,7 @@ def cmd_train(args):
             print(f"resumed from step {state.step}")
     state, history = TR.train_loop(
         cfg, fam.init, fam.apply, train_d, device=device,
-        eval_data=test_d or None, log_file=args.log_file,
+        eval_data=test_d or None, log_file=args.log_file, tb_dir=args.tb_dir,
         checkpoint_dir=args.ckpt_dir, state=state,
         extras_fn=getattr(fam, "batch_extras", None),
         fused_tf_fn=getattr(fam, "apply_fused_tf", None),
@@ -606,6 +660,13 @@ def cmd_eval(args):
     from .models import get_family
     from .ops.fused_lstm import exact_f32_matmul
 
+    if args.plot:
+        from .plots import require_matplotlib
+
+        try:  # checked before anything is computed
+            require_matplotlib()
+        except ImportError as e:
+            raise SystemExit(f"eval --plot: {e}") from None
     cfg = _preset_cfg(args)
     fam = get_family(cfg.model_family)
     device = _device(args.device)
@@ -614,10 +675,38 @@ def cmd_eval(args):
     state = ck.restore(TR.init_state(cfg, fam.init, TR.make_optimizer(cfg), device=device))
     _, test_d = _load_or_synth_data(args, cfg)
     res = E.evaluate(state.params, cfg, test_d, impl="fused")
+    if args.plot:
+        from . import plots
+
+        curves, pred = eval_plot_series(state.params, cfg, test_d, res, device)
+        curve_png = plots.plot_error_by_step(curves, f"{args.plot}_curve.png", rate_hz=cfg.rate_hz)
+        traj_png = plots.plot_trajectory(test_d["past"][0], test_d["future"][0], pred,
+                                         f"{args.plot}_traj.png", rate_hz=cfg.rate_hz)
+        print(f"plots: {curve_png}, {traj_png}", file=sys.stderr)
     if args.json:
         print(json.dumps(res))
     else:
         print(E.comparison_table({cfg.name: res}))
+
+
+def eval_plot_series(params, cfg, test_d, res, device):
+    """What ``eval --plot`` draws, computed on ``device`` where ``params``
+    are: ``res`` is ``evaluate``'s result on ``test_d`` → ({name: the error
+    curve by step in degrees} of the model and of the persistence baseline,
+    the (H_out, 3) prediction of the first test window)."""
+    from . import baselines
+    from . import evaluate as E
+    from . import infer
+    from .models import get_family
+
+    fam = get_family(cfg.model_family)
+    past = torch.as_tensor(test_d["past"], device=device)
+    pers = baselines.persistence(past, cfg.model.h_out).cpu().numpy()
+    pers_res = E.evaluate_predictions(pers, test_d["future"])
+    pred = infer.predict_batch(params, cfg, fam.apply, {k: v[:1] for k, v in test_d.items() if k != "future"},
+                               None, getattr(fam, "batch_extras", None), impl="fused")
+    return ({cfg.name: res["error_by_step_deg"], "persistence": pers_res["error_by_step_deg"]},
+            pred[0].cpu().numpy())
 
 
 def _serving_params(args, cfg, fam, device):
@@ -626,7 +715,7 @@ def _serving_params(args, cfg, fam, device):
     from . import serving
     from . import train as TR
 
-    if args.params:
+    if getattr(args, "params", None):
         return serving.load_exported_params(args.params, cfg, fam, device=device)
     ck = _open_checkpoint(args.ckpt_dir, cfg)
     return ck.restore(TR.init_state(cfg, fam.init, TR.make_optimizer(cfg), device=device)).params
@@ -661,7 +750,6 @@ def cmd_predict(args):
     condition on other viewers' frames past the window end."""
     from . import geometry, infer
     from . import serving as SV
-    from . import traces as T
     from .models import get_family
     from .ops.fused_lstm import exact_f32_matmul
 
@@ -679,12 +767,10 @@ def cmd_predict(args):
                 "--peer-group requires --at-frame: one shared playback "
                 "position defines the per-video peer span"
             )
-    if args.traces:
-        raise SystemExit("not ported yet: predict --traces: ROADMAP.md, slice C-3 (trace ingest)")
     device = _device(args.device)
     exact_f32_matmul()
     params = _serving_params(args, cfg, fam, device)
-    store = T.synthetic_store(n_users=8, n_videos=1, n_frames=600, rate_hz=cfg.rate_hz, seed=cfg.seed + 1)
+    store = _viewer_store(args, cfg)
 
     extras = getattr(fam, "batch_extras", None)
     k_peers = args.peers
@@ -786,6 +872,178 @@ def cmd_predict(args):
             print(f"wrote {len(rows)} predictions → {args.out}", file=sys.stderr)
 
 
+def _viewer_store(args, cfg):
+    """The viewers of ``predict`` and ``stream-sim``: the logs of
+    ``--traces`` (layout ``--dataset-format``) at the preset's rate, else a
+    synthetic store of 8 users of one 600-frame video."""
+    if args.traces:
+        from . import datasets as DSETS
+
+        return DSETS.load_dataset(args.traces, fmt=args.dataset_format, rate_hz=cfg.rate_hz)
+    from . import traces as T
+
+    return T.synthetic_store(n_users=8, n_videos=1, n_frames=600, rate_hz=cfg.rate_hz, seed=cfg.seed + 1)
+
+
+def cmd_serve(args):
+    """Streaming-prefetch scoring: decode the test split, build tile
+    prefetch sets from the predictions, and report how often the viewer's
+    true tile was prefetched against the bandwidth spent, for the model and
+    the hold-last baseline. The model serves through the fused route (the
+    kernels on the card, their plain versions on the CPU), as
+    ``serve-daemon --impl auto``; JAX's ``serve`` runs its XLA path."""
+    from . import baselines, infer
+    from .models import get_family
+    from .ops.fused_lstm import exact_f32_matmul
+
+    cfg = _preset_cfg(args)
+    fam = get_family(cfg.model_family)
+    device = _device(args.device)
+    exact_f32_matmul()
+    params = _serving_params(args, cfg, fam, device)
+    _, test_d = _load_or_synth_data(args, cfg)
+    kw = dict(tile_rows=args.tile_rows, tile_cols=args.tile_cols, fov_deg=args.fov)
+    past = torch.as_tensor(test_d["past"], device=device)
+    pred = infer.predict_batch(params, cfg, fam.apply, {"past": past}, None, getattr(fam, "batch_extras", None),
+                               impl="fused")
+    true = torch.as_tensor(test_d["future"], device=device)
+    hit, tiles = infer.prefetch_accuracy(pred, true, **kw)
+    hit_p, tiles_p = infer.prefetch_accuracy(baselines.persistence(past, cfg.model.h_out), true, **kw)
+    print(json.dumps({
+        "model_hit_rate": round(float(hit), 4),
+        "model_tiles_per_frame": round(float(tiles), 2),
+        "persistence_hit_rate": round(float(hit_p), 4),
+        "persistence_tiles_per_frame": round(float(tiles_p), 2),
+        "n_windows": int(test_d["past"].shape[0]),
+        "horizon": cfg.model.h_out,
+        "grid": f"{args.tile_rows}x{args.tile_cols}",
+        "fov_deg": args.fov,
+    }))
+
+
+def cmd_stream_sim(args):
+    """The streaming simulation (``infer.stream_simulation``) over the
+    viewers of ``--traces`` or of a synthetic store; one JSON line."""
+    from . import infer
+    from .models import get_family
+    from .ops.fused_lstm import exact_f32_matmul
+
+    cfg = _preset_cfg(args)
+    fam = get_family(cfg.model_family)
+    device = _device(args.device)
+    exact_f32_matmul()
+    params = _serving_params(args, cfg, fam, device)
+    store = _viewer_store(args, cfg)
+    n_peers = args.peers
+    if n_peers < 0:  # the preset's K for the families that take peers
+        n_peers = cfg.n_other_users if getattr(fam, "batch_extras", None) is not None else 0
+    res = infer.stream_simulation(
+        params, cfg, [t.xyz for t in store.traces], device=device,
+        deadlines=tuple(int(x) for x in args.deadlines.split(",")), fov_deg=args.fov,
+        impl="plain" if args.impl == "xla" else "fused", n_peers=n_peers,
+    )
+    print(json.dumps(res))
+
+
+def cmd_inspect_traces(args):
+    """Report what the dataset adapters would do with each file: parsed
+    shape, sniffed layout, rate estimate, column ranges, and quaternion-norm
+    and angle-unit checks; ``--validate`` checks every file strictly and
+    exits with code 2 on any failure. The output is the JAX
+    ``inspect-traces``'s, line for line."""
+    import glob
+
+    from . import datasets as DS
+    from .native import parse_trace_bytes
+
+    if args.validate:
+        res = DS.validate_dataset(args.traces, args.dataset_format, rate_hz=args.rate)
+        n_fail = 0
+        for rep in res["files"]:
+            rel = os.path.relpath(rep["path"], args.traces)
+            if rep["errors"]:
+                n_fail += 1
+                print(f"FAIL {rel} [{rep['fmt'] or '?'}]")
+                for e in rep["errors"]:
+                    print(f"     error: {e}")
+            else:
+                extra = f" {rep.get('rate_hz')} Hz" if rep.get("rate_hz") else ""
+                print(f"ok   {rel} [{rep['fmt']}] {rep['rows']} rows{extra}")
+            for w in rep["warnings"]:
+                print(f"     warn: {w}")
+        for w in res["dir_warnings"]:
+            print(f"warn: {w}")
+        total = len(res["files"])
+        print(f"{total - n_fail}/{total} files valid" + ("" if res["ok"] else " — VALIDATION FAILED"))
+        if not res["ok"]:
+            raise SystemExit(2)
+        return
+
+    files = [p for p in sorted(glob.glob(os.path.join(args.traces, "**/*.*"), recursive=True)) if os.path.isfile(p)]
+    if not files:
+        raise SystemExit(f"no files under {args.traces}")
+    shown = parsed = 0
+    for path in files:
+        if shown >= args.limit:
+            print(f"... ({len(files) - shown} more files)")
+            break
+        rel = os.path.relpath(path, args.traces)
+        if path.endswith(".json"):
+            arr = DS._load_json_trace(path)
+            if arr is None:
+                print(f"{rel}: unparseable JSON trace")
+                shown += 1
+                continue
+        else:
+            try:
+                with open(path, "rb") as f:
+                    arr = parse_trace_bytes(f.read())
+            except (OSError, ValueError) as e:
+                print(f"{rel}: unparseable ({e})")
+                shown += 1
+                continue
+        shown += 1
+        if arr.shape[0] < 2:
+            print(f"{rel}: {arr.shape} — too short to analyze")
+            continue
+        try:
+            fmt = DS.sniff_format(arr)
+        except ValueError as e:
+            print(f"{rel}: {arr.shape} — {e}")
+            continue
+        parsed += 1
+        spec = DS.FORMATS[fmt]
+        ts = arr[:, spec.t_col]
+        dt = np.diff(ts)
+        dt = dt[dt > 0]
+        rate = f"{1.0 / np.median(dt):.1f} Hz" if dt.size else "n/a"
+        notes = []
+        if spec.kind == "quat":
+            qn = np.linalg.norm(arr[:, list(spec.cols)], axis=1)
+            notes.append(f"quat |q| in [{qn.min():.3f}, {qn.max():.3f}]")
+        else:
+            yaw = arr[:, spec.cols[0]]
+            notes.append(f"yaw range [{yaw.min():.2f}, {yaw.max():.2f}] ({'deg' if spec.degrees else 'rad'})")
+            if not spec.degrees and np.abs(yaw).max() > 1.05 * np.pi:
+                notes.append("CAUTION: |yaw| > pi — data may use a [0, 2pi) convention the adapters do not expect")
+        if arr.shape[1] >= 5 and spec.kind == "euler":
+            # sniffing takes a quaternion layout only with |q| within 0.05 of
+            # 1, so a file that fell through here may hold corrupted or
+            # unnormalized quaternions: say how close it came
+            qn5 = np.linalg.norm(arr[:, 1:5], axis=1)
+            extra = ""
+            if 0.3 < float(np.median(qn5)) < 3.0:
+                extra = (f" (cols 1-4 have |q| median {np.median(qn5):.2f} — "
+                         f"possibly non-unit quaternions; renormalize upstream)")
+            notes.append("CAUTION: >=5 columns but no unit-quaternion block found; "
+                         "the euler guess may be wrong — check --dataset-format" + extra)
+        if not np.all(np.diff(ts) >= 0):
+            notes.append("WARNING: non-monotonic timestamps")
+        print(f"{rel}: {arr.shape[0]} rows x {arr.shape[1]} cols -> format={fmt}, rate~{rate}; " + "; ".join(notes))
+    print(f"\n{parsed}/{shown} shown files parse cleanly. If a layout guess "
+          f"is wrong, pass prepare-data --dataset-format explicitly.")
+
+
 def cmd_serve_daemon(args):
     """Online serving: dynamic batching, sessions and tile prefetch over
     TCP (``serving.serve_daemon``), params from a checkpoint or a flat
@@ -841,5 +1099,6 @@ def main(argv=None):
         "presets": cmd_presets, "serve-bench": cmd_serve_bench,
         "train": cmd_train, "eval": cmd_eval, "prepare-data": cmd_prepare_data,
         "extract-features": cmd_extract_features, "export": cmd_export,
-        "predict": cmd_predict, "serve-daemon": cmd_serve_daemon,
+        "predict": cmd_predict, "serve-daemon": cmd_serve_daemon, "serve": cmd_serve,
+        "stream-sim": cmd_stream_sim, "inspect-traces": cmd_inspect_traces,
     }[args.cmd](args)

@@ -3,10 +3,9 @@
 Copy of ``longterm360fov_tpu.data`` (host numpy). Splitting is by time
 within each trace (train on the first fraction, test on the rest), so test
 windows never overlap training frames. Outputs are allocated once at their
-final size and each trace's windows are written straight into its slice.
-The JAX package fills them with its C extension when it is built; this copy
-uses that extension's numpy form (a ``sliding_window_view`` copy), with the
-same result. The packed npz is the one the JAX ``prepare-data`` writes.
+final size and each trace's windows are written straight into its slice by
+the C library's ``native.window_fill``, as the JAX package's C extension
+fills them. The packed npz is the one the JAX ``prepare-data`` writes.
 """
 
 from __future__ import annotations
@@ -15,28 +14,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from . import native
 from .traces import TraceStore
 
 __all__ = ["windows_from_store", "save_packed", "load_packed"]
-
-
-def _window_fill(
-    trace: np.ndarray,
-    past_out: Optional[np.ndarray],
-    future_out: np.ndarray,
-    h_in: int,
-    stride: int = 1,
-) -> None:
-    """Fill preallocated past/future window arrays in place;
-    ``past_out=None`` fills only the futures, offset by ``h_in``."""
-    trace = np.ascontiguousarray(trace, np.float32)
-    n, h_out = future_out.shape[0], future_out.shape[1]
-    win = np.lib.stride_tricks.sliding_window_view(
-        trace, h_in + h_out, axis=0
-    ).transpose(0, 2, 1)[::stride][:n]
-    if past_out is not None:
-        np.copyto(past_out, win[:, :h_in])
-    np.copyto(future_out, win[:, h_in:])
 
 
 def _future_mean(
@@ -125,7 +106,7 @@ def windows_from_store(
         if map_shape is not None:
             out["maps"] = np.zeros((total,) + map_shape, np.float32)
         for tr, peers, lo, hi, n, off in job_list:
-            _window_fill(
+            native.window_fill(
                 tr.xyz[lo:hi], out["past"][off:off + n],
                 out["future"][off:off + n], h_in, stride,
             )
@@ -146,7 +127,7 @@ def windows_from_store(
                 # (N, K, h_out, 3)[:, k] is strided: fill a contiguous
                 # scratch, then one strided assign
                 fut_k = np.empty((m, h_out, 3), np.float32)
-                _window_fill(peer.xyz[lo:hi], None, fut_k, h_in, stride)
+                native.window_fill(peer.xyz[lo:hi], None, fut_k, h_in, stride)
                 out["other_future"][off:off + m, k] = fut_k
                 out["other_mask"][off:off + m, k] = 1.0
         return out

@@ -11,9 +11,11 @@ step in PyTorch.
 from __future__ import annotations
 
 import math
+import time
 import types
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 from . import geometry, windows
@@ -30,6 +32,7 @@ __all__ = [
     "tiles_for_fov",
     "tile_of",
     "prefetch_accuracy",
+    "stream_simulation",
 ]
 
 IMPLS = ("fused", "plain")
@@ -211,3 +214,103 @@ def prefetch_accuracy(
     true_tile = tile_of(true_xyz, tile_rows=tile_rows, tile_cols=tile_cols)
     hit = torch.gather(mask, -1, true_tile[..., None])[..., 0]
     return hit.float().mean(), mask.sum(dim=-1).float().mean()
+
+
+def stream_simulation(
+    params,
+    cfg: ExperimentConfig,
+    traces_xyz,
+    *,
+    device,
+    deadlines=(1, 10, 30),
+    tile_rows: int = 6,
+    tile_cols: int = 12,
+    fov_deg: float = 90.0,
+    impl: str = "fused",
+    n_peers: int = 0,
+):
+    """Continuous streaming simulation, twin of the JAX
+    ``infer.stream_simulation``: at every tick each viewer's last H_in
+    frames go in, a fresh H_out-frame prediction comes out, and the server
+    prefetches the union of its tiles over the horizon; for each download
+    deadline δ (frames of lead time) it counts how often the tile the viewer
+    looked at δ frames later was in that set.
+
+    ``traces_xyz`` is a list of (T, 3) viewer traces, cut to the shortest.
+    With ``n_peers`` = K > 0 each viewer's peers are the next K viewers'
+    known futures (``torch.roll`` over the viewer axis, as ``jnp.roll``).
+    The rates are :func:`_stream_counts`' counts rounded as JAX's are;
+    ``predictions_per_sec`` is on the host clock. ``impl`` is one of
+    ``IMPLS``; the CLI's ``stream-sim --impl`` defaults to "fused"."""
+    deadlines = tuple(int(d) for d in deadlines)
+    hits, tiles_sum, n_view, n_ticks, elapsed = _stream_counts(
+        params, cfg, traces_xyz, device=device, deadlines=deadlines, tile_rows=tile_rows, tile_cols=tile_cols,
+        fov_deg=fov_deg, impl=impl, n_peers=n_peers)
+    n_pred = n_view * n_ticks
+    return {
+        "viewers": n_view,
+        "ticks": n_ticks,
+        "hit_rate_by_deadline": {str(dl): round(int(h) / n_pred, 4) for dl, h in zip(deadlines, hits)},
+        "mean_tiles_per_frame": round(tiles_sum / n_ticks, 2),
+        "predictions_per_sec": round(n_pred / elapsed, 1),
+    }
+
+
+def _stream_counts(params, cfg: ExperimentConfig, traces_xyz, *, device, deadlines, tile_rows, tile_cols, fov_deg,
+                   impl, n_peers):
+    """The ticks of :func:`stream_simulation`, unrounded → (hits per
+    deadline, an int64 array; the tiles a frame summed over the ticks; the
+    viewers; the ticks; the seconds they took). The trace stack is copied
+    to ``device`` once; every tick (predict → ``tiles_for_fov`` → union over
+    the horizon → ``tile_of`` → hit per deadline) runs there on device
+    tensors, the counts accumulate there, and only they are read back. JAX
+    runs the ticks as one compiled ``lax.scan``; here they are a host loop
+    of launches. One tick runs untimed first (the kernels' libraries load);
+    the seconds time the rest, synchronized at the end."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    device = torch.device(device)
+    h_in, h_out = cfg.model.h_in, cfg.model.h_out
+    t_total = min(len(t) for t in traces_xyz)
+    stack = np.stack([np.asarray(t[:t_total], np.float32) for t in traces_xyz])  # (V, T, 3)
+    n_view = stack.shape[0]
+
+    max_d = max(deadlines)
+    if n_peers:
+        if n_peers >= n_view:
+            raise ValueError(f"n_peers {n_peers} needs at least {n_peers + 1} viewers")
+        max_d = max(max_d, h_out)  # peer futures span the horizon
+    n_ticks = t_total - max_d - h_in
+    if n_ticks <= 0:
+        raise ValueError(
+            f"traces too short: {t_total} frames < h_in {h_in} + max deadline {max_d} + 1"
+        )
+    serve = make_predict_fn(params, cfg, device=device, impl=impl)
+    stack_d = torch.as_tensor(stack, device=device)
+    dl_idx = torch.tensor([d - 1 for d in deadlines], device=device)
+    kw = dict(tile_rows=tile_rows, tile_cols=tile_cols)
+
+    def tick(t, hits, tiles):
+        batch = {"past": stack_d[:, t - h_in:t].contiguous()}
+        if n_peers:
+            fut_all = stack_d[:, t:t + h_out]
+            # (V, K, h_out, 3): viewer v's k-th peer is viewer v + k + 1
+            batch["other_future"] = torch.stack([torch.roll(fut_all, -(k + 1), dims=0) for k in range(n_peers)], 1)
+        mask = tiles_for_fov(serve(batch), fov_deg=fov_deg, **kw)  # (V, h_out, M)
+        fetch = mask.any(dim=1)  # the union over the horizon: this tick's prefetch set
+        tiles += mask.sum(dim=-1).float().mean()
+        true_tile = tile_of(stack_d[:, t:t + max_d][:, dl_idx], **kw)  # (V, D): looked at δ frames later
+        hits += torch.gather(fetch, 1, true_tile).sum(dim=0)
+
+    with torch.inference_mode():
+        tick(h_in, torch.zeros(len(deadlines), dtype=torch.int64, device=device),
+             torch.zeros((), device=device))  # untimed: the kernels' libraries load
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        hits = torch.zeros(len(deadlines), dtype=torch.int64, device=device)
+        tiles = torch.zeros((), device=device)
+        t0 = time.perf_counter()
+        for t in range(h_in, h_in + n_ticks):
+            tick(t, hits, tiles)
+        hits_h, tiles_sum = hits.cpu().numpy(), float(tiles)
+    return hits_h, tiles_sum, n_view, n_ticks, max(time.perf_counter() - t0, 1e-9)

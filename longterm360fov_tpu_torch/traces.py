@@ -1,8 +1,12 @@
-"""Head-orientation traces: the synthetic subset, host numpy.
+"""Head-orientation traces: parsing, resampling, synthetic data; host code.
 
-Copy of ``Trace``, ``TraceStore``, ``synthetic_trace`` and
-``synthetic_store`` of ``longterm360fov_tpu.traces``. Trace parsing and
-resampling come with the trace-ingest slice (ROADMAP.md).
+Copy of ``longterm360fov_tpu.traces``: ``load_trace`` parses one log
+(Python ``float``, float64), ``resample`` brings a trace to a fixed rate
+along great circles (timestamps stay float64 through ``searchsorted``; the
+fraction and the slerp are float32, as JAX computes them), ``TraceStore``
+groups traces by video, and ``synthetic_store`` makes a stand-in dataset.
+Quaternions and slerp go through the port's ``geometry`` on CPU float32
+tensors, which rounds where the JAX functions round when they run op by op.
 
 The JAX package computes the conversions between (yaw, pitch) and xyz in
 float32 through XLA, whose CPU backend evaluates sin, cos and atan2 with the
@@ -19,16 +23,23 @@ from __future__ import annotations
 import ctypes
 import ctypes.util
 import functools
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
+
+from . import geometry
 
 __all__ = [
     "Trace",
     "TraceStore",
     "euler_to_xyz",
     "xyz_to_euler",
+    "quat_to_xyz",
+    "load_trace",
+    "resample",
     "synthetic_trace",
     "synthetic_store",
 ]
@@ -85,6 +96,12 @@ def xyz_to_euler(v) -> Tuple[np.ndarray, np.ndarray]:
     return yaw, pitch
 
 
+def quat_to_xyz(q) -> np.ndarray:
+    """Quaternions (..., 4) (w, x, y, z) → float32 unit vectors (..., 3),
+    in float32 as the JAX ``geometry.quat_to_xyz`` computes them."""
+    return geometry.quat_to_xyz(torch.from_numpy(np.array(q, np.float32))).numpy()
+
+
 @dataclass
 class Trace:
     """One viewer's head-orientation trajectory for one video.
@@ -105,6 +122,81 @@ class Trace:
 
     def __len__(self) -> int:
         return self.xyz.shape[0]
+
+
+def load_trace(
+    path: str,
+    *,
+    user: str | None = None,
+    video: str | None = None,
+    rate_hz: float = 10.0,
+    fmt: str = "auto",
+) -> Trace:
+    """Parse one head-pose log file → fixed-rate :class:`Trace`.
+
+    Layouts (``fmt``): ``"quat"`` ``t, qw, qx, qy, qz``; ``"euler"``
+    ``t, yaw, pitch[, roll]`` in radians; ``"euler_deg"`` the same in
+    degrees; ``"auto"`` picks by column count (5 or more → quat, else euler,
+    in degrees when some |angle| > 2π). Commas or whitespace separate
+    values; blank lines, '#' comments and non-numeric header rows are
+    skipped. ``user`` defaults to the file's stem, ``video`` to its
+    directory's name."""
+    rows: List[List[float]] = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            try:
+                rows.append([float(p) for p in line.replace(",", " ").split()])
+            except ValueError:
+                continue  # header row
+    if not rows:
+        raise ValueError(f"no numeric rows in {path}")
+    arr = np.asarray(rows, dtype=np.float64)
+    t = arr[:, 0]
+    if fmt == "auto":
+        if arr.shape[1] >= 5:
+            fmt = "quat"
+        else:
+            fmt = "euler_deg" if np.abs(arr[:, 1:3]).max() > 2 * np.pi else "euler"
+    if fmt == "quat":
+        xyz = quat_to_xyz(arr[:, 1:5])
+    elif fmt in ("euler", "euler_deg"):
+        yaw, pitch = arr[:, 1], arr[:, 2]
+        if fmt == "euler_deg":
+            yaw, pitch = np.radians(yaw), np.radians(pitch)
+        xyz = euler_to_xyz(yaw, pitch)
+    else:
+        raise ValueError(f"unknown trace format {fmt!r}")
+    name = os.path.splitext(os.path.basename(path))[0]
+    return Trace(
+        user=user or name,
+        video=video or os.path.basename(os.path.dirname(path)) or "video0",
+        xyz=resample(t, xyz, rate_hz),
+        rate_hz=rate_hz,
+    )
+
+
+def resample(t: np.ndarray, xyz: np.ndarray, rate_hz: float) -> np.ndarray:
+    """Resample (T, 3) orientations at timestamps ``t`` to a fixed rate,
+    float32. Timestamps are sorted (stably) and duplicates dropped (the
+    first kept); between samples the orientation follows the great circle
+    (slerp), never the chord."""
+    t = np.asarray(t, dtype=np.float64)
+    order = np.argsort(t, kind="stable")
+    t, xyz = t[order], np.asarray(xyz)[order]
+    keep = np.concatenate([[True], np.diff(t) > 0])
+    t, xyz = t[keep], xyz[keep]
+    if len(t) < 2:
+        return xyz.astype(np.float32)
+    new_t = np.arange(t[0], t[-1], 1.0 / rate_hz)
+    idx = np.clip(np.searchsorted(t, new_t, side="right") - 1, 0, len(t) - 2)
+    t0, t1 = t[idx], t[idx + 1]
+    frac = (new_t - t0) / np.maximum(t1 - t0, 1e-12)
+    xyz = torch.from_numpy(np.array(xyz, np.float32))
+    idx = torch.from_numpy(idx)
+    return geometry.slerp(xyz[idx], xyz[idx + 1], torch.from_numpy(frac.astype(np.float32))).numpy()
 
 
 @dataclass

@@ -390,6 +390,7 @@ def train_loop(
     device,
     eval_data: Optional[Dict[str, np.ndarray]] = None,
     log_file: Optional[str] = None,
+    tb_dir: Optional[str] = None,
     checkpoint_dir: Optional[str] = None,
     state: Optional[TrainState] = None,
     extras_fn: Optional[Callable] = None,
@@ -401,8 +402,9 @@ def train_loop(
     Runs the fast step between logged steps and the full step (with the
     great-circle metric) on every ``eval_every``-th and the last step; a
     logged step also evaluates ``eval_data`` through ``evaluate.evaluate``
-    with :func:`eval_impl`'s impl and appends a JSON line to ``log_file``.
-    Checkpoints every ``ckpt_every`` steps and at the end. Resumable: pass
+    with :func:`eval_impl`'s impl, appends a JSON line to ``log_file`` and
+    writes the numeric metrics to ``tb_dir`` as TensorBoard scalars
+    (``utils.profiling.TensorBoardWriter``). Checkpoints every ``ckpt_every`` steps and at the end. Resumable: pass
     a restored ``state`` to continue from its step."""
     optimizer = make_optimizer(cfg)
     fns = dict(extras_fn=extras_fn, fused_tf_fn=fused_tf_fn, fused_ss_fn=fused_ss_fn)
@@ -419,7 +421,12 @@ def train_loop(
         ckpt = Checkpointer(checkpoint_dir, cfg)
     start_step = state.step
     t0 = time.time()
-    with open(log_file, "a") if log_file else contextlib.nullcontext() as log_fh:
+    tb = contextlib.nullcontext()
+    if tb_dir:
+        from .utils.profiling import TensorBoardWriter
+
+        tb = TensorBoardWriter(tb_dir)
+    with open(log_file, "a") if log_file else contextlib.nullcontext() as log_fh, tb:
         for i in range(start_step, cfg.steps):
             logged = (i + 1) % cfg.eval_every == 0 or i + 1 == cfg.steps
             state, metrics = (step_fn if logged else step_fast)(state, next(it))
@@ -436,6 +443,8 @@ def train_loop(
                 if log_file:
                     log_fh.write(json.dumps(m) + "\n")
                     log_fh.flush()
+                if tb_dir:
+                    tb.write(**m)
             if ckpt and ((i + 1) % cfg.ckpt_every == 0 or i + 1 == cfg.steps):
                 ckpt.save(state, metrics=history[-1] if history else None)
     return state, history

@@ -368,8 +368,13 @@ def test_cli_prepare_data_matches_jax(tmp_path, capsys):
         assert sorted(ours) == sorted(ref) == ["features", "future", "past"]
         for k in ref:
             assert np.array_equal(ours[k], ref[k]), k
-    with pytest.raises(SystemExit, match="slice C"):
-        cli.main(["prepare-data", "--out", str(tmp_path / "x.npz"), "--traces", str(tmp_path)])
+    # --traces is ported (slice C-3): a directory without a log is refused as JAX refuses it
+    (tmp_path / "no_logs").mkdir()
+    with pytest.raises(SystemExit) as ref:
+        jax_cli.main(["prepare-data", "--out", str(tmp_path / "x.npz"), "--traces", str(tmp_path / "no_logs")])
+    with pytest.raises(SystemExit) as got:
+        cli.main(["prepare-data", "--out", str(tmp_path / "x.npz"), "--traces", str(tmp_path / "no_logs")])
+    assert str(got.value) == str(ref.value) and "no parseable traces" in str(got.value)
 
 
 def test_cli_feature_pipeline_on_cpu(tmp_path, capsys):

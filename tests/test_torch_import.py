@@ -110,3 +110,62 @@ def test_export_predict_and_daemon_run_without_jax():
     proc = subprocess.run([sys.executable, "-c", _DAEMON_PROBE.replace("MODS", repr(_SLICE_C_1_2))], cwd=ROOT,
                           capture_output=True, text=True, timeout=120, env={**os.environ, "PYTHONPATH": ROOT})
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+# slices C-3 and C-4 (trace ingest, the simulations and the reports): new
+# modules and entry points
+_SLICE_C_3_4_MODULES = ("datasets", "native", "plots", "utils", "utils.profiling", "utils.flops")
+_SLICE_C_3_4 = (("geometry", "quat_normalize"), ("geometry", "quat_to_euler"), ("geometry", "quat_to_xyz"),
+                ("geometry", "slerp"), ("traces", "load_trace"), ("traces", "resample"),
+                ("infer", "stream_simulation"), ("cli", "cmd_serve"), ("cli", "cmd_stream_sim"),
+                ("cli", "cmd_inspect_traces"))
+
+_INGEST_PROBE = r"""
+import importlib, os, sys, tempfile
+for blocked in ('jax', 'jaxlib', 'longterm360fov_tpu', 'matplotlib', 'tensorboard'):
+    sys.modules[blocked] = None
+for mod in NEW:
+    importlib.import_module('longterm360fov_tpu_torch.' + mod)
+for mod, attr in MODS:
+    getattr(importlib.import_module('longterm360fov_tpu_torch.' + mod), attr)
+import numpy as np, torch
+from longterm360fov_tpu_torch import datasets, infer, native
+from longterm360fov_tpu_torch.config import get_preset
+from longterm360fov_tpu_torch.models import get_family
+root = tempfile.mkdtemp()
+for u in range(3):
+    os.makedirs(f'{root}/user{u}')
+    t = np.arange(400) / 30.0
+    yaw = 0.01 * u + np.linspace(0, 2, 400)
+    q = np.stack([t, np.cos(yaw / 2), 0 * t, 0 * t, np.sin(yaw / 2)], 1)
+    np.savetxt(f'{root}/user{u}/video0.csv', q, fmt='%.6f', delimiter=',')
+store = datasets.load_dataset(root)
+assert len(store) == 3 and len(store.traces[0]) == 134, [len(t) for t in store.traces]
+cfg = get_preset('seq2seq-tf-30', model_h_in=10, model_h_out=10, model_hidden=16)
+params = get_family(cfg.model_family).init(torch.Generator().manual_seed(0), cfg.model, device='cpu')
+res = infer.stream_simulation(params, cfg, [t.xyz for t in store.traces], device='cpu', deadlines=(1, 5))
+assert res['viewers'] == 3 and res['ticks'] == 134 - 10 - 5, res
+lib = native.build()
+assert lib.parent == native.BUILD_DIR and native.SOURCE.is_relative_to(native.BUILD_DIR.parents[1])
+print('ok')
+"""
+
+
+def test_ingest_and_stream_simulation_run_without_jax():
+    """The slice's modules import, and logs ingest through the C library into
+    a streaming simulation on the CPU, with jax, the JAX package, matplotlib
+    and tensorboard unimportable; the C library is built from the port's own
+    source into the checkout's build directory."""
+    probe = _INGEST_PROBE.replace("NEW", repr(_SLICE_C_3_4_MODULES)).replace("MODS", repr(_SLICE_C_3_4))
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_the_slice_modules_are_in_the_package():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr
+    names = proc.stdout.split(" ")[2].strip().split(",")
+    for mod in _SLICE_C_3_4_MODULES:
+        assert f"longterm360fov_tpu_torch.{mod}" in names

@@ -196,11 +196,33 @@ def test_predict_refusals_match_jax(exported, argv):
     assert str(ours.value) == str(ref.value)
 
 
-def test_predict_traces_names_its_slice(exported):
-    _, npz, _ = exported["lstm"]
-    with pytest.raises(SystemExit, match="slice C-3"):
-        cli.main(["predict", "--preset", "lstm-xyz-10", "--params", npz, "--traces", "somewhere", "--device",
-                  "cpu"])
+def test_predict_traces_names_its_slice(exported, tmp_path):
+    """predict --traces (slice C-3, ported): on a directory of quaternion
+    logs of two viewers of one video, the port's rows equal JAX's, K = 1
+    peer each; on a directory with no log both refuse alike."""
+    preset, npz, flags = exported["crossuser"]
+    rng = np.random.default_rng(8)
+    for u in range(2):
+        (tmp_path / "logs" / f"user{u}").mkdir(parents=True)
+        t = np.arange(300) / 30.0 + rng.uniform(-0.003, 0.003, 300)
+        yaw = np.cumsum(rng.normal(0, 0.02, 300))
+        np.savetxt(tmp_path / "logs" / f"user{u}" / "video0.csv",
+                   np.column_stack([t, np.cos(yaw / 2), 0 * t, 0 * t, np.sin(yaw / 2)]), fmt="%.7f", delimiter=",")
+    argv = ["predict", "--preset", preset, "--params", npz, *flags, "--traces", str(tmp_path / "logs"),
+            "--at-frame", "50", "--tiles"]
+    jax_cli.main([*argv, "--out", str(tmp_path / "jax.jsonl")])
+    cli.main([*argv, "--out", str(tmp_path / "ours.jsonl"), "--device", "cpu"])
+    ours = _rows(tmp_path / "ours.jsonl")
+    _same_predictions(ours, _rows(tmp_path / "jax.jsonl"))
+    assert [(r["user"], r["video"], r["peers_used"]) for r in ours] == [("user0", "video0", 1), ("user1", "video0", 1)]
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(SystemExit) as ref:
+        jax_cli.main(["predict", "--preset", "lstm-xyz-10", "--params", exported["lstm"][1], "--traces",
+                      str(tmp_path / "empty")])
+    with pytest.raises(SystemExit) as got:
+        cli.main(["predict", "--preset", "lstm-xyz-10", "--params", exported["lstm"][1], "--traces",
+                  str(tmp_path / "empty"), "--device", "cpu"])
+    assert str(got.value) == str(ref.value) == "no trace long enough for a full input window"
 
 
 @pytest.mark.parametrize("cmd,extra", [
