@@ -325,7 +325,25 @@ one line each or more:
    the error curves of the model and of persistence, one window's
    prediction) computed on the card against the CPU, and ``eval --plot``
    and ``train --tb-dir`` on the card, their files where matplotlib and
-   tensorboard are installed, else the message that names the package.
+   tensorboard are installed, else the message that names the package;
+20. data parallelism (slice P-1): (a) ``parallel.train_loop_dp`` in a world
+   of one over NCCL for 3 steps at each preset's own batch (128) through the
+   fused routes on ``seq2seq-tf-30``, ``stacked-ss-crossuser`` (scheduled
+   sampling) and ``transformer-30``, its params bit-equal to ``train_loop``'s;
+   (b) two ranks on the one card over gloo (``parallel.launch.run_world``,
+   CUDA tensors through gloo's ``all_reduce`` and ``broadcast``), the same
+   presets and steps, the ranks' params bit-equal to each other and within
+   DP_TOL of the single-card run on the global batch; (c) ``python -m
+   torch.distributed.run --nproc-per-node 1 -m longterm360fov_tpu_torch train
+   --data-parallel`` bit-equal to ``train`` without the flag; (d)
+   ``make_sharded_predict_fn`` over ``[cuda:0] x 4`` on ``seq2seq-tf-30`` at
+   B = 262,144, ``stacked-ss-crossuser`` and ``stacked-ss-crossuser-10s``
+   (K = 7) at 65,536 and ``transformer-30`` at 16,384, each bit-equal to the
+   unsharded call, both timed in turns; (e) ``serve_daemon`` on the mesh
+   ``[cuda:0] x 4`` (divisor 4, the ladder 4 ... 256 warmed) answering a
+   viewer's pushes and a bulk ``predict_batch`` as the daemon without a mesh,
+   and ``serve-daemon --data-parallel`` (divisor 1 on the one card) started
+   as a process and answering as it. The phase prints its own time.
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -346,6 +364,7 @@ and last the contract line
 import contextlib
 import ctypes
 import dataclasses
+import datetime
 import functools
 import io
 import json
@@ -353,6 +372,7 @@ import math
 import multiprocessing
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -365,6 +385,7 @@ import numpy as np
 import torch
 
 from longterm360fov_tpu_torch import (checkpoint, cli, data, datasets, evaluate, geometry, infer, native, oracle,
+                                      parallel,
                                       serving, traces, train, windows)
 from longterm360fov_tpu_torch.config import get_preset
 from longterm360fov_tpu_torch.features import equirect
@@ -373,7 +394,8 @@ from longterm360fov_tpu_torch.models.cell import LSTMParams, lstm_cell
 from longterm360fov_tpu_torch.ops import (_build, conv_resize, fused_lstm, lstm_align, lstm_ss, lstm_train,
                                           transformer_decode, transformer_encode)
 from longterm360fov_tpu_torch.ops import transformer_encode_train as encode_train
-from longterm360fov_tpu_torch.params import params_from_numpy, tree_leaves, tree_unflatten, walk
+from longterm360fov_tpu_torch.params import params_from_numpy, tensor_to_array, tree_leaves, tree_unflatten, walk
+from longterm360fov_tpu_torch.parallel import launch
 
 PRESET = "seq2seq-tf-30"
 CU_PRESET = "stacked-ss-crossuser"
@@ -5536,6 +5558,314 @@ def drive_ingest(dev, smi):
                     f.cancel()
 
 
+# --------------------------------------------------------------- phase 20: data parallelism
+
+DP_PRESETS = (PRESET, CU_PRESET, TF_PRESET)
+DP_STEPS = 3
+# the ranks' params against the single-card run on the global batch after
+# DP_STEPS Adam updates: the bound of JAX's own DP test (tests/test_parallel.py)
+DP_TOL = 2e-6
+# each preset's training kernels on its fused route (no in-loop evaluation)
+DP_TRAIN_KERNELS = {
+    PRESET: ["lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw", "lstm_dw_pack"],
+    CU_PRESET: ["lstm_seq_states_fwd", "lstm_seq_states_bwd", "lstm_seq_states_dw", "lstm_dw_pack",
+                "ss_decode_fwd", "ss_decode_bwd", "ss_decode_dw", "ss_decode_dproj"],
+    TF_PRESET: ["encode_train_fwd", "encode_train_bwd", "encode_train_dw"],
+}
+DP_W1, DP_W2 = "train_loop_dp world 1 nccl", "train_loop_dp 2 ranks gloo one card"
+DP_TIMED = (PRESET, CU_PRESET)  # the DP step timed at TRAIN_B, world 1 and 2
+DP_SERVE, DP_DAEMON = "sharded serve [cuda:0]x4", "serve_daemon mesh [cuda:0]x4 seq2seq-tf-30"
+# (preset, batch, the serving kernels it launches)
+DP_SERVE_CASES = (
+    (PRESET, 262144, ["fused_serve"]),
+    (CU_PRESET, 65536, ["fused_serve", "fused_encode"]),
+    (CU10_PRESET, 65536, ["fused_serve_peers", "peer_context"]),
+    (TF_PRESET, 16384, ["fused_encode_tokens_bf16", "fused_ar_decode_bf16"]),
+)
+
+
+def dp_cfg(preset):
+    return get_preset(preset, steps=DP_STEPS, eval_every=DP_STEPS)
+
+
+def dp_state(cfg, dev):
+    """The preset's seeded initial state on ``dev`` (the same on every call
+    and every rank: the params are drawn by a CPU generator)."""
+    return train.init_state(cfg, get_family(cfg.model_family).init, train.make_optimizer(cfg), device=dev)
+
+
+def dp_step_batch(preset, windows, device, rows=slice(None)):
+    """The config at TRAIN_B, its initial state, and ``rows`` of one global
+    batch as tensors on ``device`` (the step's time without the copy)."""
+    cfg = get_preset(preset, batch_size=TRAIN_B)
+    batch = next(train.batch_iterator(windows[preset], TRAIN_B, seed=1))
+    return cfg, dp_state(cfg, device), {k: torch.as_tensor(v[rows], device=device) for k, v in batch.items()}
+
+
+def dp_step_times(mesh, dev, windows, smi):
+    """The DP step of a world of one against train.make_train_step at
+    TRAIN_B, in turns by CUDA events → {preset: single-card ms}."""
+    out = {}
+    for preset in DP_TIMED:
+        cfg, state, batch = dp_step_batch(preset, windows, dev)
+        fam = get_family(cfg.model_family)
+        opt = train.make_optimizer(cfg)
+        one = train.make_train_step(cfg, fam.apply, opt, **family_fns(fam))
+        dp = parallel.make_sharded_train_step(cfg, fam.apply, opt, mesh, **family_fns(fam))
+        ms = in_turns({"single card": lambda: one(state, batch), "world 1": lambda: dp(state, batch)},
+                      {"single card": 10, "world 1": 10})
+        print(f"{DP_W1} {preset}: the step at B={TRAIN_B}, in turns by CUDA events: {ms['world 1']:.3f} ms in a "
+              f"world of one over NCCL, {ms['single card']:.3f} ms train.make_train_step ({smi})", flush=True)
+        out[preset] = ms["single card"]
+    return out
+
+
+def dp_world_one(dev, windows, smi):
+    """20 (a): train_loop_dp in a world of one over NCCL against train_loop,
+    bit for bit → the single-card params of each preset (on the CPU), and
+    the single-card step's ms at TRAIN_B (:func:`dp_step_times`)."""
+    refs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.init_multihost(f"file://{tmp}/store", 1, 0, backend="nccl", device=dev,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = parallel.make_mesh(dev)
+            for preset in DP_PRESETS:
+                cfg, fam = dp_cfg(preset), get_family(get_preset(preset).model_family)
+                init = dp_state(cfg, dev)
+                ref, _ = train.train_loop(cfg, fam.init, fam.apply, windows[preset], device=dev, state=init,
+                                          **family_fns(fam))
+                (state, hist), _ = drive(f"{DP_W1} {preset}", lambda: parallel.train_loop_dp(
+                    cfg, fam.init, fam.apply, windows[preset], mesh=mesh, state=init, **family_fns(fam)),
+                    also=DP_TRAIN_KERNELS[preset])
+                same = all(torch.equal(a, b) for a, b in zip(tree_leaves(state.params), tree_leaves(ref.params)))
+                print(f"{DP_W1} {preset}: B={cfg.batch_size}, {DP_STEPS} steps, loss {hist[-1]['loss']:.6f}, "
+                      f"n_devices {hist[-1]['n_devices']}; params bit-equal to train_loop's: {same} ({smi})",
+                      flush=True)
+                if not same:
+                    raise AssertionError(f"{DP_W1} {preset}: the params differ from train_loop's")
+                refs[preset] = [t.cpu() for t in tree_leaves(ref.params)]
+            single_ms = dp_step_times(mesh, dev, windows, smi)
+        finally:
+            torch.distributed.destroy_process_group()
+    return refs, single_ms
+
+
+def dp_rank(mesh, windows):
+    """One rank of 20 (b), started by launch.run_world: each preset's
+    train_loop_dp on this rank's rows, its launch counters set to 0 just
+    before and read just after → {preset: params on the CPU, launches,
+    seconds, last loss}; then the DP step at TRAIN_B (this rank's half) and
+    the gradients' all_reduce alone, ms by the host clock over 10 calls
+    after a barrier → {("step", preset): ms, ("all_reduce", preset): ms}."""
+    fused_lstm.exact_f32_matmul()
+    out = {}
+    for preset in DP_PRESETS:
+        cfg, fam = dp_cfg(preset), get_family(get_preset(preset).model_family)
+        init = dp_state(cfg, mesh.device)
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        state, hist = parallel.train_loop_dp(cfg, fam.init, fam.apply, windows[preset], mesh=mesh, state=init,
+                                             **family_fns(fam))
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        out[preset] = {"params": [t.cpu() for t in tree_leaves(state.params)], "seconds": time.perf_counter() - t0,
+                       "launches": {n: WRAPPERS[n].launches for n in DP_TRAIN_KERNELS[preset]},
+                       "loss": hist[-1]["loss"], "n_devices": hist[-1]["n_devices"]}
+    for preset in DP_TIMED:
+        cfg, state, batch = dp_step_batch(preset, windows, mesh.device, mesh.rows(TRAIN_B))
+        fam = get_family(cfg.model_family)
+        step = parallel.make_sharded_train_step(cfg, fam.apply, train.make_optimizer(cfg), mesh, **family_fns(fam))
+        grads = tree_unflatten(state.params, [torch.randn_like(p) for p in tree_leaves(state.params)])
+        sync = torch.cuda.synchronize if mesh.device.type == "cuda" else (lambda: None)
+        for key, fn in (("step", lambda: step(state, batch)), ("all_reduce", lambda: mesh.pmean(0.0, 0.0, grads))):
+            fn()
+            mesh.barrier()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            sync()
+            out[(key, preset)] = (time.perf_counter() - t0) / 10 * 1e3
+    return out
+
+
+def dp_two_ranks(windows, refs, single_ms, smi):
+    """20 (b): two ranks on the one card over gloo against the single-card
+    run on the global batch; the step's time beside the single card's."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = launch.run_world("chip_smoke:dp_rank", 2, windows, workdir=os.path.join(tmp, "world"),
+                                 backend="gloo", device="cuda:0", timeout=300)
+        wall = time.perf_counter() - t0
+    print(f"{DP_W2}: the world of two started, ran the three presets and joined in {wall:.1f} s ({smi})",
+          flush=True)
+    for preset in DP_PRESETS:
+        r0, r1 = (r[preset] for r in ranks)
+        equal = all(torch.equal(a, b) for a, b in zip(r0["params"], r1["params"], strict=True))
+        gap = max((a - b).abs().max().item() for a, b in zip(r0["params"], refs[preset], strict=True))
+        path = f"{DP_W2} {preset}"
+        PATH_LAUNCHES[path] = r0["launches"]
+        print(f"{path}: rank 0's launches {json.dumps(r0['launches'])}, rank 1's {json.dumps(r1['launches'])}; "
+              f"n_devices {r0['n_devices']}, loss {r0['loss']:.6f}; ranks bit-equal: {equal}; max |params - "
+              f"single card, global batch| {gap:.3e} (tolerance {DP_TOL:.0e}); {r0['seconds']:.2f} s on rank 0 "
+              f"({smi})", flush=True)
+        if not equal or not gap <= DP_TOL or r0["n_devices"] != 2:
+            raise AssertionError(f"{path}: the ranks disagree or differ from the single-card run")
+        for name in DP_TRAIN_KERNELS[preset]:
+            if min(r0["launches"][name], r1["launches"][name]) < 1:
+                raise AssertionError(f"the main path '{path}' never launched kernel {name}")
+    for preset in DP_TIMED:
+        step, reduce = ([r[(key, preset)] for r in ranks] for key in ("step", "all_reduce"))
+        print(f"{DP_W2} {preset}: the step at B={TRAIN_B} ({TRAIN_B // 2} rows a rank) {max(step):.3f} ms on the "
+              f"slower rank ({min(step):.3f} on the other), host clock over 10 steps after a barrier, against "
+              f"{single_ms[preset]:.3f} ms for the single-card step (CUDA events, phase 20 (a)); the gradients' "
+              f"gloo all_reduce alone {max(reduce):.3f} ms ({smi})", flush=True)
+
+
+def dp_cli(tmp, smi):
+    """20 (c): train --data-parallel under the launcher (a world of one,
+    cuda:LOCAL_RANK) against train without the flag: the checkpoints'
+    params bit-equal."""
+    base = ["train", "--preset", PRESET, "--steps", str(DP_STEPS), "--batch-size", "128", "--device", "cuda"]
+    plain, dp = os.path.join(tmp, "ck-plain"), os.path.join(tmp, "ck-dp")
+    out, code = quiet_cli([*base, "--ckpt-dir", plain])
+    if code:
+        raise AssertionError(f"train exited {code}")
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+                           "-m", "longterm360fov_tpu_torch", *base, "--data-parallel", "--ckpt-dir", dp],
+                          capture_output=True, text=True, timeout=300, env=env, cwd=tmp)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"train --data-parallel under the launcher exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    a, b = (torch.load(os.path.join(d, str(DP_STEPS), "state.pt"), weights_only=True)["params"] for d in (plain, dp))
+    same = all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+    print(f"train --data-parallel under python -m torch.distributed.run --nproc-per-node 1: {last_json(proc.stdout)}"
+          f" in {wall:.1f} s with the process's start; params bit-equal to train without the flag: {same} ({smi})",
+          flush=True)
+    if not same or last_json(proc.stdout)["n_devices"] != 1:
+        raise AssertionError("train --data-parallel differs from train")
+
+
+def dp_serve(dev, smi):
+    """20 (d): make_sharded_predict_fn over [cuda:0] x 4 against the
+    unsharded call, bit for bit, both timed in turns."""
+    mesh = [dev] * 4
+    for preset, batch, kernels in DP_SERVE_CASES:
+        cfg = get_preset(preset)
+        fam = get_family(cfg.model_family)
+        params = params_from_numpy(cli.bench_params_np(cfg, 0), dev)
+        m, rng = cfg.model, np.random.default_rng(1)
+        x = {"past": unit_rows(rng, dev, (batch, m.h_in))}
+        if cfg.model_family != "seq2seq":
+            x["other_future"] = unit_rows(rng, dev, (batch, cfg.n_other_users, m.h_out))
+        whole = infer.make_predict_fn(params, cfg, device=dev, impl="fused")
+        sharded = parallel.make_sharded_predict_fn(params, cfg, fam, mesh, impl="fused")
+        ref = whole(x)
+        out, _ = drive(f"{DP_SERVE} {preset}", lambda: sharded(x), also=kernels)
+        gap = (out - ref).abs().max().item()
+        ms = in_turns({"unsharded": lambda: whole(x), "4 slices": lambda: sharded(x)},
+                      {"unsharded": 3, "4 slices": 3})
+        print(f"{DP_SERVE} {preset}: B={batch} as 4 slices of {batch // 4}, K={cfg.n_other_users if 'other_future' in x else 0}; "
+              f"bit-equal to the unsharded call: {torch.equal(out, ref)} (max |Δ| {gap:.3e}); "
+              f"{ms['4 slices']:.3f} ms sharded, {ms['unsharded']:.3f} ms unsharded, in turns by CUDA events "
+              f"({smi})", flush=True)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{DP_SERVE} {preset}: the sharded answers differ from the unsharded call's")
+        del x, out, ref
+        torch.cuda.empty_cache()
+
+
+def first_line(proc, timeout):
+    """The first line a process prints, or raise after ``timeout`` s."""
+    box = []
+    reader = threading.Thread(target=lambda: box.append(proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(timeout)
+    if not box or not box[0]:
+        proc.kill()
+        raise AssertionError(f"the process printed nothing in {timeout} s:\n{proc.communicate()[1][-3000:]}")
+    return box[0]
+
+
+def dp_daemon(dev, tmp, smi):
+    """20 (e): the daemon on [cuda:0] x 4 against the daemon without a
+    mesh; then serve-daemon --data-parallel as a process against it."""
+    cfg = get_preset(PRESET)
+    fam = get_family(cfg.model_family)
+    params = params_from_numpy(cli.bench_params_np(cfg, 0), dev)
+    opts = dict(device=dev, host="127.0.0.1", port=0, max_batch=256, impl="auto")
+    t0 = time.perf_counter()
+    meshed = serving.serve_daemon(params, cfg, fam, mesh=[dev] * 4, **opts)
+    warm = time.perf_counter() - t0
+    plain = serving.serve_daemon(params, cfg, fam, **opts)
+    for server in (meshed, plain):
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+    rng = np.random.default_rng(5)
+    poses, pasts = pose_walk(rng, cfg.model.h_in + 4), unit_pasts(rng, 1000, cfg.model.h_in)
+
+    def traffic(server):
+        c = serving.FovClient(*server.server_address, timeout=120.0)
+        pushes = [answered(c.push("v0", pose), "push") for pose in poses]
+        bulk = answered(c.request({"op": "predict_batch", "past": pasts.tolist()}), "predict_batch")
+        one = answered(c.predict(pasts[0].tolist()), "predict")
+        c.close()
+        return pushes[-4:] + [bulk, one]
+
+    try:
+        got, _ = drive(DP_DAEMON, lambda: traffic(meshed), also=["fused_serve"])
+        ref = traffic(plain)
+        same = all(a[k] == b[k] for a, b in zip(got, ref) for k in ("yaw", "pitch", "prefetch") if k in b)
+        print(f"{DP_DAEMON}: divisor {meshed.batcher.divisor}, the ladder 4 ... 256 warmed in {warm:.1f} s; "
+              f"{len(poses)} pushes, a bulk of {len(pasts)} windows and a predict answered as by the daemon "
+              f"without a mesh (divisor {plain.batcher.divisor}): {same}; stats {json.dumps(meshed.batcher.stats())}"
+              f" ({smi})", flush=True)
+        if not same or meshed.batcher.divisor != 4 or DAEMON_ERRORS:
+            raise AssertionError(f"{DP_DAEMON}: the answers differ from the daemon without a mesh {DAEMON_ERRORS}")
+        npz = os.path.join(tmp, "dp.npz")
+        np.savez(npz, **{k: tensor_to_array(v) for k, v in serving.flat_param_items(params)})
+        env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "longterm360fov_tpu_torch", "serve-daemon", "--preset", PRESET,
+                                 "--params", npz, "--data-parallel", "--port", "0", "--max-batch", "64"],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=tmp)
+        try:
+            listening = json.loads(first_line(proc, 300))
+            host, port = listening["listening"].rsplit(":", 1)
+            c = serving.FovClient(host, int(port), timeout=120.0)
+            reply = answered(c.predict(pasts[0].tolist()), "serve-daemon --data-parallel")
+            c.close()
+        finally:
+            proc.send_signal(signal.SIGINT)
+            err = proc.communicate(timeout=60)[1]
+        same_cli = all(reply[k] == ref[-1][k] for k in ("yaw", "pitch", "prefetch"))
+        print(f"serve-daemon --data-parallel: listening after {time.perf_counter() - t0:.1f} s with the process's "
+              f"start, answered as the daemon without a mesh: {same_cli}; exit {proc.returncode}, its stats "
+              f"{err.strip().splitlines()[-1] if err.strip() else None} ({smi})", flush=True)
+        if not same_cli or proc.returncode != 0:
+            raise AssertionError("serve-daemon --data-parallel did not answer as the daemon without a mesh")
+    finally:
+        stop_daemon(meshed)
+        stop_daemon(plain)
+
+
+def drive_dp(dev, smi):
+    """Phase 20: data parallelism, (a) to (e)."""
+    t0 = time.perf_counter()
+    windows = {p: synthetic_windows(get_preset(p))[0] for p in DP_PRESETS}
+    refs, single_ms = dp_world_one(dev, windows, smi)
+    dp_two_ranks(windows, refs, single_ms, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_cli(tmp, smi)
+        dp_serve(dev, smi)
+        dp_daemon(dev, tmp, smi)
+    print(f"phase 20 data parallelism: {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only on the card")
@@ -5838,6 +6168,13 @@ def main():
     # --tb-dir on the card against the CPU
     drive_ingest(dev, smi)
     state_dir.cleanup()
+    torch.cuda.empty_cache()
+
+    phase("20 data parallelism")
+    # 20. train_loop_dp over NCCL (a world of one) and over gloo (two ranks
+    # on the one card), the CLI under the launcher, sharded serving and the
+    # daemon on a mesh of the one card named four times
+    drive_dp(dev, smi)
     torch.cuda.empty_cache()
 
     phase("done")

@@ -42,7 +42,6 @@ __all__ = ["main", "serve_bench", "bench_params_np", "card", "extract_features"]
 # train flags of the JAX CLI that the port does not have yet, and the
 # ROADMAP.md item that brings each
 _NOT_PORTED = {
-    "data_parallel": "--data-parallel: ROADMAP.md, slice 'parallelism'",
     "seq_parallel": "--seq-parallel: ROADMAP.md, slice 'parallelism'",
     "pipeline_parallel": "--pipeline-parallel: ROADMAP.md, slice 'parallelism'",
 }
@@ -256,8 +255,10 @@ def _build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--train-compute", dest="train_compute", choices=["float32", "bfloat16"])
     tr.add_argument("--peer-align", action="store_true", dest="peer_align")
     tr.add_argument("--bf16", action="store_true", help="bfloat16 params (model.param_dtype)")
+    tr.add_argument("--data-parallel", action="store_true",
+                    help="one rank a process under torchrun / python -m torch.distributed.run, each on "
+                    "cuda:LOCAL_RANK (gloo on --device cpu); without a launcher a world of one")
     # JAX train flags not ported yet: each raises, naming its ROADMAP item
-    tr.add_argument("--data-parallel", action="store_true")
     tr.add_argument("--seq-parallel", type=int, default=0)
     tr.add_argument("--pipeline-parallel", type=int, default=0)
     tr.add_argument("--tb-dir", help="TensorBoard scalar log dir (optional; needs the tensorboard package)")
@@ -329,7 +330,8 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="auto = fused: the CUDA kernels on the card, their plain versions on the CPU; "
                     "xla = the plain PyTorch path")
     sd.add_argument("--data-parallel", action="store_true",
-                    help="shard every dispatch over all local cards (not ported yet: raises)")
+                    help="shard every dispatch over every visible card of --device cuda (the one device "
+                    "of --device cpu); batch buckets start at the card count")
     sd.add_argument("--device", default="cuda", help=DEVICE_HELP)
 
     ex = sub.add_parser("export", help="checkpoint → flat npz for serving deployments")
@@ -598,7 +600,6 @@ def cmd_serve_bench(args):
 
 
 def cmd_train(args):
-    from . import train as TR
     from .models import get_family
     from .ops.fused_lstm import exact_f32_matmul
 
@@ -613,12 +614,36 @@ def cmd_train(args):
     over = {k: getattr(args, k) for k in ("steps", "batch_size", "lr", "accum", "gc_weight",
                                           "train_compute")
             if getattr(args, k) is not None}
+    if args.data_parallel:
+        over["data_parallel"] = True
     if args.bf16:  # bf16 params: part of the model hash, so eval refuses the checkpoint, as in JAX
         over["model_param_dtype"] = "bfloat16"
     cfg = _preset_cfg(args, **over)
     fam = get_family(cfg.model_family)
     device = _device(args.device)
     exact_f32_matmul()
+    if not cfg.data_parallel:
+        _train(args, cfg, fam, device)
+        return
+    from .parallel import init_multihost, make_mesh
+    from .parallel.multihost import local_device
+
+    if device.type == "cuda" and device.index is None:
+        device = local_device()  # cuda:{LOCAL_RANK}
+    started = init_multihost(device=device)
+    try:
+        _train(args, cfg, fam, device, make_mesh(device))
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, cfg, fam, device, mesh=None):
+    """``train``'s body on ``device``; with ``mesh`` (``--data-parallel``)
+    ``parallel.train_loop_dp`` on this rank, and only rank 0 prints."""
+    from . import train as TR
+
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     train_d, test_d = _load_or_synth_data(args, cfg)
     h_in, h_out = train_d["past"].shape[1], train_d["future"].shape[1]
     if (h_in, h_out) != (cfg.model.h_in, cfg.model.h_out):
@@ -633,25 +658,34 @@ def cmd_train(args):
         bs = (cfg.batch_size // cfg.accum) * cfg.accum
         if bs == 0:
             raise SystemExit(f"--accum {cfg.accum} exceeds batch size {cfg.batch_size}")
-        print(f"rounding batch_size down to {bs} (multiple of --accum)")
+        say(f"rounding batch_size down to {bs} (multiple of --accum)")
         cfg = cfg.replace(batch_size=bs)
     state = None
     if args.resume and args.ckpt_dir:
+        if mesh is not None and mesh.rank:
+            mesh.barrier()  # rank 0 opens the directory first: it may write its config.json
         ck = _open_checkpoint(args.ckpt_dir, cfg, resuming=True)
+        if mesh is not None and not mesh.rank:
+            mesh.barrier()
         if ck.latest_step() is not None:
             fresh = TR.init_state(cfg, fam.init, TR.make_optimizer(cfg), device=device)
             state = ck.restore(fresh)
-            print(f"resumed from step {state.step}")
-    state, history = TR.train_loop(
-        cfg, fam.init, fam.apply, train_d, device=device,
+            say(f"resumed from step {state.step}")
+    kw = dict(
         eval_data=test_d or None, log_file=args.log_file, tb_dir=args.tb_dir,
         checkpoint_dir=args.ckpt_dir, state=state,
         extras_fn=getattr(fam, "batch_extras", None),
         fused_tf_fn=getattr(fam, "apply_fused_tf", None),
         fused_ss_fn=getattr(fam, "apply_fused_ss", None),
     )
+    if mesh is None:
+        state, history = TR.train_loop(cfg, fam.init, fam.apply, train_d, device=device, **kw)
+    else:
+        from .parallel import train_loop_dp
+
+        state, history = train_loop_dp(cfg, fam.init, fam.apply, train_d, mesh=mesh, **kw)
     if history:
-        print(json.dumps(history[-1]))
+        say(json.dumps(history[-1]))
 
 
 def cmd_eval(args):
@@ -1052,8 +1086,6 @@ def cmd_serve_daemon(args):
     from .models import get_family
     from .ops.fused_lstm import exact_f32_matmul
 
-    if args.data_parallel:
-        raise SystemExit("not ported yet: serve-daemon --data-parallel: ROADMAP.md, slice 'parallelism'")
     gwarm = None
     if args.grouped_warmup:
         # checked before the params load
@@ -1071,11 +1103,15 @@ def cmd_serve_daemon(args):
     device = _device(args.device)
     exact_f32_matmul()
     params = _serving_params(args, cfg, fam, device)
+    mesh = None
+    if args.data_parallel:  # every visible card, or the one CPU device
+        mesh = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                if device.type == "cuda" else [device])
     server = serving.serve_daemon(
         params, cfg, fam, device=device, host=args.host, port=args.port, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, with_tiles=not args.no_tiles, tile_rows=args.tile_rows,
-        tile_cols=args.tile_cols, fov_deg=args.fov, impl=args.impl, pipeline_depth=args.pipeline_depth,
-        grouped_warmup=gwarm,
+        tile_cols=args.tile_cols, fov_deg=args.fov, impl=args.impl, mesh=mesh,
+        pipeline_depth=args.pipeline_depth, grouped_warmup=gwarm,
     )
     print(json.dumps({
         "listening": f"{args.host}:{server.server_address[1]}", "preset": cfg.name,

@@ -13,7 +13,7 @@ from __future__ import annotations
 import math
 import time
 import types
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -112,7 +112,7 @@ def predict_euler(params, cfg: ExperimentConfig, apply_fn, past, context=None, e
 def make_predict_fn(
     params, cfg: ExperimentConfig, *, device, with_tiles: bool = False,
     tile_rows: int = 6, tile_cols: int = 12, fov_deg: float = 90.0,
-    impl: str = "fused",
+    impl: str = "fused", fam=None, extras_fn: Optional[Callable] = None,
 ) -> Callable:
     """Close over params/config → ``serve(past, context=None)``.
 
@@ -121,9 +121,13 @@ def make_predict_fn(
     "other_future" and "other_mask"); everything is moved to ``device``,
     where ``params`` must already be. Returns the (B, H_out, 3) predicted
     xyz, and with ``with_tiles`` also the (B, H_out, R*C) per-step prefetch
-    mask."""
+    mask. ``fam`` (default: the preset's family) gives the forward, and
+    ``extras_fn`` replaces its ``batch_extras``."""
     device = torch.device(device)
-    fam = get_family(cfg.model_family)
+    fam = fam or get_family(cfg.model_family)
+    if extras_fn is not None:
+        fam = types.SimpleNamespace(apply=fam.apply, batch_extras=extras_fn,
+                                    serve_fused=getattr(fam, "serve_fused", None))
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 

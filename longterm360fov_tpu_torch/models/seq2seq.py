@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .. import draws
 from .cell import get_cell_fn, init_lstm
 
 __all__ = [
@@ -115,15 +116,14 @@ def _project(params: Params, h: torch.Tensor) -> torch.Tensor:
     return h.float() @ params["proj"]["w"].float() + params["proj"]["b"].float()
 
 
-def draw_coins(gen: torch.Generator, teacher_prob: float, t_out: int, batch: int) -> torch.Tensor:
+def draw_coins(gen, teacher_prob: float, t_out: int, batch: int) -> torch.Tensor:
     """Scheduled-sampling coins (t_out, B, 1) f32 on the generator's device:
     1 (teacher input) with probability ``teacher_prob``, else 0. Drawn in one
-    call; ``jax.random`` draws per step from split keys, and the two give
-    different numbers, so parity tests pass explicit coins."""
-    if not isinstance(gen, torch.Generator):
-        raise TypeError(f"rng must be a torch.Generator, got {type(gen).__name__}")
-    u = torch.rand((t_out, batch, 1), generator=gen, device=gen.device)
-    return (u < teacher_prob).float()
+    call from a ``torch.Generator``, or a data-parallel rank's rows of the
+    global batch's coins (``draws.RankDraw``); ``jax.random`` draws per step
+    from split keys, and the two give different numbers, so parity tests
+    pass explicit coins."""
+    return (draws.rand(gen, (t_out, batch, 1), dim=1) < teacher_prob).float()
 
 
 def apply(

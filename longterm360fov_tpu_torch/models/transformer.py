@@ -45,6 +45,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import draws
 from .cell import mm as _mm, round_to as _round
 from .seq2seq import Seq2SeqConfig
 
@@ -251,22 +252,22 @@ def _decoder_block(layer, x, enc_mem, peer_mem, peer_valid, *, causal_mask,
     return x + _mlp(layer["mlp"], _ln(layer["ln4"], x), cd)
 
 
-def draw_noise(gen: torch.Generator, shape) -> torch.Tensor:
+def draw_noise(gen, shape) -> torch.Tensor:
     """N(0, 1) f32 noise of noisy teacher forcing, on the generator's device,
-    in one call. ``jax.random.normal`` gives other numbers, so parity tests
-    patch the draw on both sides."""
-    if not isinstance(gen, torch.Generator):
-        raise TypeError(f"rng must be a torch.Generator, got {type(gen).__name__}")
-    return torch.randn(shape, generator=gen, device=gen.device)
+    in one call, from a ``torch.Generator`` or a data-parallel rank's rows of
+    the global batch's noise (``draws.RankDraw``). ``jax.random.normal``
+    gives other numbers, so parity tests patch the draw on both sides."""
+    return draws.randn(gen, shape, dim=0)
 
 
 def teacher_tokens(cfg, y0, future_n, rng=None, teacher_prob=1.0):
     """Teacher-forced decoder inputs: token t is the true position at t - 1,
     with, given ``rng``, noise of sigma ``(1 - teacher_prob) · std(future)``
-    (the population std over the whole array)."""
+    (the population std over the whole array; under a ``draws.RankDraw``,
+    over every rank's rows)."""
     tokens = torch.cat([y0[:, None], future_n[:, :-1].to(cfg.dtype)], dim=1)
     if rng is not None:
-        sigma = (1.0 - teacher_prob) * future_n.float().std(correction=0)
+        sigma = (1.0 - teacher_prob) * draws.batch_std(rng, future_n.float())
         tokens = tokens + (sigma * draw_noise(rng, tokens.shape)).to(tokens.dtype)
     return tokens
 

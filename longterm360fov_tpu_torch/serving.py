@@ -36,8 +36,9 @@ PyTorch twin of ``longterm360fov_tpu.serving``:
   the batcher's dispatcher thread, except grouped bulk requests, which run
   on their handler thread behind a bounded semaphore.
 
-Not ported yet (ROADMAP.md): the batcher's mesh bucket divisor (slice
-'parallelism').
+With a serving ``mesh`` (a list of devices, ``parallel.serve``) the serve
+program splits every dispatch into equal slices, one per device, and the
+batcher's buckets are multiples of the mesh's size (its ``divisor``).
 """
 
 from __future__ import annotations
@@ -111,6 +112,7 @@ def make_serve_fn(
     fov_deg: float = 90.0,
     impl: str = "fused",
     param_store: Optional[ParamStore] = None,
+    mesh=None,
 ) -> Callable:
     """One serve program: batch dict of host arrays ("past" and the
     family's extras, see :func:`extra_specs_for`) → ONE packed
@@ -122,6 +124,14 @@ def make_serve_fn(
 
     ``param_store`` makes the returned callable read its params from the
     store at every dispatch instead of the ``params`` snapshot.
+
+    With ``mesh`` (a list of devices, which may repeat one) every batch
+    splits into ``len(mesh)`` equal contiguous slices, each served on its
+    device with the params replicated there (again after a reload), and the
+    packed results are gathered in order on ``device``; the batch size must
+    then be a multiple of the mesh's size, which the DynamicBatcher
+    guarantees with ``divisor=len(mesh)``. Predictions are viewer-local, so
+    the slices exchange nothing.
     """
     device = torch.device(device)
     if impl not in infer.IMPLS:
@@ -129,13 +139,12 @@ def make_serve_fn(
     store = param_store if param_store is not None else ParamStore(params)
     h_out = cfg.model.h_out
 
-    @torch.inference_mode()
-    def fn(batch):
+    def packed(params, batch, dev):
         tensors = {
-            k: torch.as_tensor(v, dtype=torch.float32, device=device)
+            k: torch.as_tensor(v, dtype=torch.float32, device=dev)
             for k, v in batch.items()
         }
-        xyz = infer.predict_xyz(store.params, cfg, fam, tensors, impl=impl)
+        xyz = infer.predict_xyz(params, cfg, fam, tensors, impl=impl)
         yaw, pitch = geometry.xyz_to_euler(xyz)
         out = [yaw, pitch]
         if with_tiles:
@@ -145,6 +154,29 @@ def make_serve_fn(
             # union over the horizon = this tick's prefetch set
             out.append(mask.any(dim=1).float())
         return torch.cat(out, dim=-1)
+
+    if mesh is None:
+
+        @torch.inference_mode()
+        def fn(batch):
+            return packed(store.params, batch, device)
+
+    else:
+        from .parallel.serve import gather, mesh_devices, replicate_params, shard_slices, take_rows
+
+        devices = mesh_devices(mesh)
+        replicas = {"version": None, "params": None}
+
+        @torch.inference_mode()
+        def fn(batch):
+            version = store.version  # read before the params: a swap in between re-replicates next time
+            if replicas["version"] != version:
+                replicas.update(version=version, params=replicate_params(store.params, devices))
+            slices = shard_slices(len(batch["past"]), len(devices))
+            return gather([
+                packed(replicas["params"][d], {k: take_rows(v, rows) for k, v in batch.items()}, d)
+                for d, rows in zip(devices, slices)
+            ], device)
 
     def unpack(host: np.ndarray) -> Dict[str, np.ndarray]:
         out = {
@@ -285,15 +317,22 @@ class DynamicBatcher:
         required: frozenset = frozenset(),
         max_batch: int = 256,
         max_wait_ms: float = 2.0,
+        divisor: int = 1,
         max_queue: Optional[int] = None,
         pipeline_depth: int = 4,
     ):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
+        if divisor < 1 or max_batch % divisor:
+            raise ValueError(
+                f"max_batch {max_batch} must be a positive multiple of "
+                f"divisor {divisor} (= mesh data size for sharded serving)"
+            )
         self._serve = serve_fn
         self.h_in = int(h_in)
         self.extra_specs = dict(extra_specs or {})
         self.required = frozenset(required)
+        self.divisor = int(divisor)
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
         # admission control: a bounded queue turns overload into an
@@ -455,7 +494,7 @@ class DynamicBatcher:
     # -- dispatcher ----------------------------------------------------
 
     def _bucket(self, n: int) -> int:
-        b = 1  # ladder: 1, 2, 4, ...
+        b = self.divisor  # ladder: divisor, 2·divisor, 4·divisor, ...
         while b < n:
             b *= 2
         return min(b, self.max_batch)
@@ -1582,6 +1621,7 @@ def serve_daemon(
     tile_cols: int = 12,
     fov_deg: float = 90.0,
     impl: str = "auto",
+    mesh=None,
     warmup: bool = True,
     pipeline_depth: int = 4,
     grouped: bool = True,
@@ -1590,33 +1630,36 @@ def serve_daemon(
     """Build the packed serve program, the batcher and the TCP server on
     ``device``, where ``params`` must be (not yet serving: call
     ``serve_forever()``, or serve it from a thread). With ``warmup`` every
-    rung of the bucket ladder (1, 2, 4, … ``max_batch``) runs once before
-    the socket opens, so no live request pays a first launch (the kernels'
-    build, the allocator's first blocks). The server answers "reload":
-    hot-swap params from a new `export` npz through the :class:`ParamStore`
-    the programs read at every dispatch.
+    rung of the bucket ladder (divisor, 2·divisor, … ``max_batch``) runs
+    once before the socket opens, so no live request pays a first launch
+    (the kernels' build, the allocator's first blocks). ``mesh`` (a list of
+    devices) splits every dispatch over its devices (:func:`make_serve_fn`),
+    and the ladder's divisor is its size (1 without). The server answers
+    "reload": hot-swap params from a new `export` npz through the
+    :class:`ParamStore` the programs read at every dispatch.
 
     Peer-consuming families also get the grouped program
-    (:func:`make_grouped_serve_fn`) for grouped ``predict_batch`` requests;
-    ``grouped_warmup`` lists ``(n_rows, n_groups)`` pairs to run once on it
-    before the socket opens."""
+    (:func:`make_grouped_serve_fn`) for grouped ``predict_batch`` requests,
+    when not sharded over a ``mesh``; ``grouped_warmup`` lists ``(n_rows,
+    n_groups)`` pairs to run once on it before the socket opens."""
     if impl not in DAEMON_IMPLS:
         raise ValueError(f"impl must be one of {DAEMON_IMPLS}, got {impl!r}")
     impl = "plain" if impl == "xla" else "fused"
     device = torch.device(device)
     store = ParamStore(params)
     tiles = dict(with_tiles=with_tiles, tile_rows=tile_rows, tile_cols=tile_cols, fov_deg=fov_deg)
-    serve_fn = make_serve_fn(params, cfg, fam, device=device, impl=impl, param_store=store, **tiles)
+    serve_fn = make_serve_fn(params, cfg, fam, device=device, impl=impl, param_store=store, mesh=mesh, **tiles)
     specs = extra_specs_for(cfg)
-    want_grouped = grouped and "other_future" in specs
+    divisor = 1 if mesh is None else len(mesh)
+    want_grouped = grouped and "other_future" in specs and mesh is None
     if grouped_warmup and not want_grouped:
         raise ValueError(
             "grouped_warmup given but this server has no grouped path "
-            "(peerless preset, or grouped=False)"
+            "(peerless preset, grouped=False, or mesh-sharded daemon)"
         )
     if warmup:
         h_in = cfg.model.h_in
-        b = 1
+        b = divisor
         while True:
             dummy = {"past": np.zeros((b, h_in, 3), np.float32)}
             dummy["past"][..., 0] = 1.0  # on-sphere
@@ -1633,6 +1676,7 @@ def serve_daemon(
         required=required_extras_for(cfg),
         max_batch=max_batch,
         max_wait_ms=max_wait_ms,
+        divisor=divisor,
         pipeline_depth=pipeline_depth,
     )
     grouped_fn = None

@@ -24,14 +24,18 @@ card) where the window fits it (T <= 64); JAX keeps that kernel off its
 step (``FUSED_TRAIN_ENCODER = False``), so under "xla" and in JAX the step
 is autograd through ``apply``.
 
+Data parallelism (``parallel.train_loop_dp``) runs this step and this loop
+with a ``mesh`` (``parallel.mesh.DataMesh``): each rank takes the gradient of
+its rows of the global batch, and one ``all_reduce`` averages the gradients,
+the loss and the great-circle metric before the optimizer runs, as JAX's
+``pmean`` over ``'data'``; ``cfg.data_parallel`` itself changes nothing here,
+as in JAX.
+
 A ``--bf16`` model (``model.param_dtype`` "bfloat16") trains as JAX's
 does: the optimizer follows optax's dtype rules leaf by leaf
 (:func:`make_optimizer`), and on the fused route the LSTM cells' W and b,
 which the kernels train, get f32 gradients, the dtype of JAX's custom VJPs
 (:func:`make_grad_fn`); every other leaf's gradient is in its own dtype.
-
-Not ported yet, and raising: ``data_parallel`` (ROADMAP.md, slice
-'parallelism').
 """
 
 from __future__ import annotations
@@ -188,12 +192,7 @@ def step_generator(cfg: ExperimentConfig, step: int, device) -> torch.Generator:
     return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
 
-def _check_ported(cfg: ExperimentConfig):
-    if cfg.data_parallel:
-        raise NotImplementedError(
-            f"{cfg.name}: data-parallel training is not ported yet "
-            f"(ROADMAP.md, slice 'parallelism')"
-        )
+def _check_impl(cfg: ExperimentConfig):
     if cfg.train_impl not in TRAIN_IMPLS:
         raise ValueError(f"train_impl must be one of {TRAIN_IMPLS}, got {cfg.train_impl!r}")
 
@@ -225,7 +224,7 @@ def make_grad_fn(
     does not reach gets zeros in its own dtype, as under ``jax.grad``. With
     ``accum`` > 1 the microbatches' gradients are summed in f32 and the
     mean rounded to each param's dtype, as JAX's accumulation does."""
-    _check_ported(cfg)
+    _check_impl(cfg)
     extras = extras_fn or default_extras
     impl_on = cfg.train_impl in ("auto", "fused")
     use_fused = fused_tf_fn is not None and not cfg.scheduled_sampling and impl_on
@@ -304,6 +303,7 @@ def make_train_step(
     fused_tf_fn: Optional[Callable] = None,
     fused_ss_fn: Optional[Callable] = None,
     gc_metric: bool = True,
+    mesh=None,
 ) -> Callable:
     """``step(state, batch) -> (state, metrics)``: one optimizer update from
     :func:`make_grad_fn`'s gradient, with scheduled sampling at
@@ -311,7 +311,12 @@ def make_train_step(
     ``metrics`` holds 0-d tensors (read them only where the host needs
     them: each read waits for the device). ``gc_metric=False`` builds the
     fast step the loop runs between logged steps; its parameter updates are
-    the same."""
+    the same.
+
+    With ``mesh`` (``parallel.mesh.DataMesh``) ``batch`` is this rank's
+    rows of the global batch: the coins are the rank's rows of the global
+    batch's (``mesh.draw``), and the gradients, the loss and the metric are
+    averaged over the ranks (``mesh.pmean``) before the update."""
     grad_fn = make_grad_fn(cfg, apply_fn, extras_fn=extras_fn, fused_tf_fn=fused_tf_fn,
                            fused_ss_fn=fused_ss_fn, gc_metric=gc_metric)
 
@@ -319,7 +324,11 @@ def make_train_step(
         tp = teacher_prob_at(cfg, state.step)
         gen = (step_generator(cfg, state.step, params_device(state.params))
                if cfg.scheduled_sampling else None)
+        if mesh is not None and gen is not None:
+            gen = mesh.draw(gen)
         (loss, gc_deg), grads = grad_fn(state.params, batch, gen, tp)
+        if mesh is not None:
+            loss, gc_deg, grads = mesh.pmean(loss, gc_deg, grads)
         updates, opt_state = optimizer.update(grads, state.opt_state)
         with torch.no_grad():
             params = tree_unflatten(state.params, [
@@ -396,6 +405,7 @@ def train_loop(
     extras_fn: Optional[Callable] = None,
     fused_tf_fn: Optional[Callable] = None,
     fused_ss_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> Tuple[TrainState, list]:
     """Single-device training loop → (final state, metrics history).
 
@@ -405,47 +415,66 @@ def train_loop(
     with :func:`eval_impl`'s impl, appends a JSON line to ``log_file`` and
     writes the numeric metrics to ``tb_dir`` as TensorBoard scalars
     (``utils.profiling.TensorBoardWriter``). Checkpoints every ``ckpt_every`` steps and at the end. Resumable: pass
-    a restored ``state`` to continue from its step."""
+    a restored ``state`` to continue from its step.
+
+    ``mesh`` (``parallel.mesh.DataMesh``; use ``parallel.train_loop_dp``,
+    which sizes the batch and makes the ranks' states agree) runs the
+    data-parallel loop: every rank draws the same global batches and steps
+    on its rows, only rank 0 writes the log, the TensorBoard scalars and the
+    checkpoints (the ranks wait for each save), and every rank returns the
+    same history, with ``n_devices`` and the slowest rank's
+    ``steps_per_sec``."""
     optimizer = make_optimizer(cfg)
-    fns = dict(extras_fn=extras_fn, fused_tf_fn=fused_tf_fn, fused_ss_fn=fused_ss_fn)
+    fns = dict(extras_fn=extras_fn, fused_tf_fn=fused_tf_fn, fused_ss_fn=fused_ss_fn, mesh=mesh)
     step_fn = make_train_step(cfg, apply_fn, optimizer, **fns)
     step_fast = make_train_step(cfg, apply_fn, optimizer, gc_metric=False, **fns)
     if state is None:
         state = init_state(cfg, init_fn, optimizer, device=device)
     it = batch_iterator(data, cfg.batch_size, cfg.seed, start_step=state.step)
+    if mesh is not None:
+        rows = mesh.rows(cfg.batch_size)
+        it = ({k: v[rows] for k, v in batch.items()} for batch in it)
+    writer = mesh is None or mesh.rank == 0
     history = []
     ckpt = None
-    if checkpoint_dir:
+    if checkpoint_dir and writer:
         from .checkpoint import Checkpointer
 
         ckpt = Checkpointer(checkpoint_dir, cfg)
     start_step = state.step
     t0 = time.time()
     tb = contextlib.nullcontext()
-    if tb_dir:
+    if tb_dir and writer:
         from .utils.profiling import TensorBoardWriter
 
         tb = TensorBoardWriter(tb_dir)
-    with open(log_file, "a") if log_file else contextlib.nullcontext() as log_fh, tb:
+    with open(log_file, "a") if log_file and writer else contextlib.nullcontext() as log_fh, tb:
         for i in range(start_step, cfg.steps):
             logged = (i + 1) % cfg.eval_every == 0 or i + 1 == cfg.steps
             state, metrics = (step_fn if logged else step_fast)(state, next(it))
             if logged:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["step"] = i + 1
-                m["steps_per_sec"] = (i + 1 - start_step) / max(time.time() - t0, 1e-9)
+                elapsed = time.time() - t0
+                if mesh is not None:
+                    elapsed = mesh.slowest(elapsed)
+                m["steps_per_sec"] = (i + 1 - start_step) / max(elapsed, 1e-9)
+                if mesh is not None:
+                    m["n_devices"] = mesh.world
                 if eval_data is not None:
                     from .evaluate import evaluate
 
                     eres = evaluate(state.params, cfg, eval_data, impl=eval_impl(cfg))
                     m["eval_great_circle_deg"] = eres["mean_deg"]
                 history.append(m)
-                if log_file:
+                if log_fh:
                     log_fh.write(json.dumps(m) + "\n")
                     log_fh.flush()
-                if tb_dir:
+                if tb_dir and writer:
                     tb.write(**m)
-            if ckpt and ((i + 1) % cfg.ckpt_every == 0 or i + 1 == cfg.steps):
-                ckpt.save(state, metrics=history[-1] if history else None)
+            if checkpoint_dir and ((i + 1) % cfg.ckpt_every == 0 or i + 1 == cfg.steps):
+                if ckpt:
+                    ckpt.save(state, metrics=history[-1] if history else None)
+                if mesh is not None:
+                    mesh.barrier()  # no rank goes on before the save is whole
     return state, history
-

@@ -6,6 +6,8 @@ import os
 import subprocess
 import sys
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
@@ -169,3 +171,59 @@ def test_the_slice_modules_are_in_the_package():
     names = proc.stdout.split(" ")[2].strip().split(",")
     for mod in _SLICE_C_3_4_MODULES:
         assert f"longterm360fov_tpu_torch.{mod}" in names
+
+
+# slice P-1 (data parallelism): new modules, and a world of ranks started by
+# parallel.launch whose processes cannot import jax or the JAX package
+_SLICE_P_1_MODULES = ("draws", "parallel", "parallel.launch", "parallel.mesh", "parallel.multihost", "parallel.serve")
+
+_BLOCKER = "import sys\nfor blocked in ('jax', 'jaxlib', 'longterm360fov_tpu'):\n    sys.modules[blocked] = None\n"
+
+_WORLD_WORKER = r"""
+import sys
+import numpy as np
+import torch
+from longterm360fov_tpu_torch import train
+from longterm360fov_tpu_torch.config import ExperimentConfig
+from longterm360fov_tpu_torch.models import seq2seq
+from longterm360fov_tpu_torch.parallel import make_sharded_predict_fn, train_loop_dp
+
+
+def run(mesh, data):
+    cfg = ExperimentConfig(name="no-jax", model=seq2seq.Seq2SeqConfig(d=3, hidden=16, layers=1, h_in=5, h_out=5),
+                           batch_size=8, steps=2, scheduled_sampling=True)
+    state, history = train_loop_dp(cfg, seq2seq.init, seq2seq.apply, data, mesh=mesh,
+                                   fused_ss_fn=seq2seq.apply_fused_ss)
+    xyz = make_sharded_predict_fn(state.params, cfg, seq2seq, ["cpu"] * 2)(data["past"][:4])
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "longterm360fov_tpu")
+                    and sys.modules[m] is not None)
+    return {"steps": history[-1]["step"], "shape": tuple(xyz.shape), "loaded": loaded,
+            "blocked": "jax" in sys.modules and sys.modules["jax"] is None}
+"""
+
+
+def test_a_world_of_ranks_runs_without_jax(tmp_path):
+    """The slice's modules import with jax blocked, and two gloo ranks train
+    (scheduled sampling, data-parallel) and serve (sharded) with jax and the
+    JAX package unimportable in every rank: a sitecustomize on the ranks'
+    path blocks them before any import."""
+    from longterm360fov_tpu_torch.parallel import launch
+
+    probe = _BLOCKER + "import importlib\n" + "".join(
+        f"importlib.import_module('longterm360fov_tpu_torch.{m}')\n" for m in _SLICE_P_1_MODULES) + "print('ok')"
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_BLOCKER)
+    worker = tmp_path / "world_worker.py"
+    worker.write_text(_WORLD_WORKER)
+    rng = np.random.default_rng(0)
+    v = rng.normal(size=(32, 10, 3)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    data = {"past": v[:, :5].copy(), "future": v[:, 5:].copy()}
+    results = launch.run_world(f"{worker}:run", 2, data, workdir=str(tmp_path / "w"), timeout=120,
+                               env={"PYTHONPATH": str(site)})
+    assert [r["steps"] for r in results] == [2, 2]
+    assert all(r["shape"] == (4, 5, 3) and r["loaded"] == [] and r["blocked"] for r in results)

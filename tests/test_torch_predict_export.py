@@ -13,6 +13,7 @@ centre sits within 5e-3 degrees of the field of view's edge."""
 
 import json
 import math
+import threading
 
 import jax
 import numpy as np
@@ -242,11 +243,29 @@ def test_predict_and_daemon_refuse_the_default_device_without_a_card(exported):
             cli.main([cmd, "--preset", "lstm-xyz-10", "--params", npz])
 
 
-def test_serve_daemon_refuses_what_is_not_ported_and_bad_warmups(exported):
+def test_serve_daemon_refuses_what_is_not_ported_and_bad_warmups(exported, monkeypatch, capsys):
+    """--data-parallel is ported (slice P-1): on --device cpu the mesh is the
+    one CPU device, so the batcher's divisor is 1, and the daemon answers;
+    bad --grouped-warmup values exit with JAX's message."""
     _, npz, _ = exported["lstm"]
     base = ["serve-daemon", "--preset", "lstm-xyz-10", "--params", npz, "--device", "cpu"]
-    with pytest.raises(SystemExit, match="slice 'parallelism'"):
-        cli.main([*base, "--data-parallel"])
+    seen = {}
+    serve_forever = serving.FovServer.serve_forever
+
+    def serve_and_ask(server, *a, **k):
+        def ask():
+            c = serving.FovClient(*server.server_address, timeout=60.0)
+            seen["reply"], seen["divisor"] = c.predict([[1.0, 0.0, 0.0]] * 10), server.batcher.divisor
+            c.close()
+            server.shutdown()
+
+        threading.Thread(target=ask, daemon=True).start()
+        serve_forever(server, *a, **k)
+
+    monkeypatch.setattr(serving.FovServer, "serve_forever", serve_and_ask)
+    cli.main([*base, "--data-parallel", "--port", "0", "--max-batch", "4"])
+    assert json.loads(capsys.readouterr().out.splitlines()[0])["max_batch"] == 4
+    assert seen["divisor"] == 1 and len(seen["reply"]["yaw"]) == 10
     with pytest.raises(SystemExit) as ours:
         cli.main([*base, "--grouped-warmup", "8x0"])
     with pytest.raises(SystemExit) as ref:

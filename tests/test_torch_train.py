@@ -209,11 +209,27 @@ def test_train_trajectory_matches_jax(case, monkeypatch):
 
 
 def test_unported_training_modes_raise():
-    # scheduled sampling is ported (tests/test_torch_cross_user.py)
-    for over, match in ((dict(data_parallel=True), "parallelism"),):
-        _, tcfg = _cfgs(**over)
-        with pytest.raises(NotImplementedError, match=match):
-            train.make_train_step(tcfg, seq2seq.apply, train.make_optimizer(tcfg))
+    """Every training mode is ported: scheduled sampling
+    (tests/test_torch_cross_user.py) and data parallelism (slice P-1,
+    tests/test_torch_parallel.py). As in JAX, cfg.data_parallel changes
+    nothing in the step (parallel.train_loop_dp runs it over ranks): a step
+    of a data_parallel config is bit-equal to one without; an unknown
+    train_impl still raises."""
+    jcfg, base = _cfgs()
+    _, tcfg = _cfgs(data_parallel=True)
+    params = params_from_numpy(jax.tree.map(np.asarray, jax_seq2seq.init(jax.random.PRNGKey(0), jcfg.model)), "cpu")
+    batch = next(train.batch_iterator(_windows(32, seed=2), 16, 0))
+    outs = []
+    for cfg in (base, tcfg):
+        opt = train.make_optimizer(cfg)
+        state, _ = train.make_train_step(cfg, seq2seq.apply, opt)(
+            train.TrainState(params, opt.init(params), 0, torch.Generator()), batch)
+        outs.append(tree_leaves(state.params))
+    for a, b in zip(*outs, strict=True):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="train_impl"):
+        train.make_train_step(base.replace(train_impl="pallas"), seq2seq.apply, train.make_optimizer(base))
+
 
 
 # ---------------------------------------------------------------- data
@@ -442,13 +458,24 @@ def test_cli_train_reads_jax_prepared_data(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,match", [
-    (["--data-parallel"], "parallelism"), (["--seq-parallel", "2"], "parallelism"),
+    (["--data-parallel"], None), (["--seq-parallel", "2"], "parallelism"),
     (["--pipeline-parallel", "2"], "parallelism"),
-    (["--tb-dir", "tb", "--data-parallel"], "parallelism"),  # --tb-dir is ported: the parallel flag still raises
+    (["--tb-dir", "tb", "--data-parallel"], None),  # both ported: a world of one, its scalars written
 ])
-def test_cli_train_unported_flags_raise(flag, match):
-    with pytest.raises(SystemExit, match=match):
-        cli.main(["train", "--preset", "seq2seq-tf-30", "--device", "cpu", *flag])
+def test_cli_train_unported_flags_raise(flag, match, tmp_path, monkeypatch, capsys):
+    """--seq-parallel and --pipeline-parallel still raise, naming the
+    parallelism slice; --data-parallel (slice P-1) trains, here without a
+    launcher in a world of one, with --tb-dir too."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["train", "--preset", "seq2seq-tf-30", "--device", "cpu", *flag]
+    if match is not None:
+        with pytest.raises(SystemExit, match=match):
+            cli.main(argv)
+        return
+    cli.main([*argv, "--steps", "2", "--batch-size", "8"])
+    last = _last_json(capsys.readouterr().out)
+    assert last["step"] == 2 and last["n_devices"] == 1
+    assert ("--tb-dir" in flag) == (tmp_path / "tb").is_dir()
 
 
 def test_cli_train_peer_align_sets_the_model_field(monkeypatch):
