@@ -343,7 +343,22 @@ one line each or more:
    ``[cuda:0] x 4`` (divisor 4, the ladder 4 ... 256 warmed) answering a
    viewer's pushes and a bulk ``predict_batch`` as the daemon without a mesh,
    and ``serve-daemon --data-parallel`` (divisor 1 on the one card) started
-   as a process and answering as it. The phase prints its own time.
+   as a process and answering as it. The phase prints its own time;
+21. sequence, pipeline and tensor parallelism (slices P-2, P-3) on grids of
+   the one card: (a) ``transformer-30`` at B = 4096 through ``train_loop``
+   on ``sp_apply_fn`` (ring and gather) and ``pp_apply_fn`` (M = 2 and 4)
+   over ``[cuda:0] x 2``, 3 steps each within JAX's trajectory bounds of the
+   plain ("xla") loop from the same state, its evaluation's launches of rows
+   10b and 9c counted; the steps in turns with the plain step, and profiles
+   of the plain, ring and M = 4 steps; (b)
+   ``transformer-10s`` at B = 1024 on four sequence shards (the encoder
+   sharded): one forward and its gradient, ring and gather, against plain
+   ``apply`` and autograd with the same draw, timed in turns; (c)
+   ``seq2seq-tf-30`` at B = 4096 on a (2 data, 2 model) grid of
+   ``[cuda:0] x 4``: the decode, a gradient and 3 steps against plain, the
+   step in turns; (d) ``train --seq-parallel 2`` refused on one card with
+   JAX's device-count message and on ``seq2seq-tf-30`` with its family
+   message. The phase prints its own time.
 
 Each main path runs with every launch counter set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -395,7 +410,7 @@ from longterm360fov_tpu_torch.ops import (_build, conv_resize, fused_lstm, lstm_
                                           transformer_decode, transformer_encode)
 from longterm360fov_tpu_torch.ops import transformer_encode_train as encode_train
 from longterm360fov_tpu_torch.params import params_from_numpy, tensor_to_array, tree_leaves, tree_unflatten, walk
-from longterm360fov_tpu_torch.parallel import launch
+from longterm360fov_tpu_torch.parallel import launch, pp, sp, tp
 
 PRESET = "seq2seq-tf-30"
 CU_PRESET = "stacked-ss-crossuser"
@@ -5866,6 +5881,197 @@ def drive_dp(dev, smi):
     print(f"phase 20 data parallelism: {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
 
 
+# --------------------------------------------------------------- phase 21: sequence, pipeline and tensor parallelism
+
+GRID_STEPS = 3
+# JAX's own bounds (tests/test_sp.py, test_pp.py, test_tp.py): a forward's
+# largest |difference|; a gradient's, over max(max|g|, 1); a 3-step
+# trajectory's loss (relative, each step) and params (absolute, at the end)
+GRID_FWD_TOL, GRID_GRAD_TOL, GRID_LOSS_REL, GRID_PARAM_TOL = 2e-5, 3e-5, 2e-4, 5e-5
+TP_DECODE_TOL, TP_GRAD_TOL = 1e-5, 2e-5
+GRID_EVAL = ["fused_encode_tokens_bf16", "fused_ar_decode_bf16"]  # rows 10b and 9c, the in-loop evaluation's
+
+
+def grid_runs(dev):
+    """The sharded transformer-30 forwards of phase 21, each on the one card
+    named as often as the grid has entries → {name: apply_fn}."""
+    two = [dev] * 2
+    return {"sp ring [cuda:0]x2": sp.sp_apply_fn(sp.make_sp_mesh(2, devices=two), impl="ring"),
+            "sp gather [cuda:0]x2": sp.sp_apply_fn(sp.make_sp_mesh(2, devices=two), impl="gather"),
+            "pp M=2 [cuda:0]x2": pp.pp_apply_fn(pp.make_pp_mesh(2, devices=two), n_microbatches=2),
+            "pp M=4 [cuda:0]x2": pp.pp_apply_fn(pp.make_pp_mesh(2, devices=two), n_microbatches=4)}
+
+
+def trajectory_gaps(hist, ref_hist, state, ref):
+    """The largest relative loss gap over the logged steps and the largest
+    |params - reference| after them."""
+    loss = max(abs(h["loss"] - r["loss"]) / abs(r["loss"]) for h, r in zip(hist, ref_hist, strict=True))
+    par = max((a - b).abs().max().item() for a, b in zip(tree_leaves(state.params), tree_leaves(ref.params)))
+    return loss, par
+
+
+def check_gaps(label, loss, par, smi):
+    print(f"{label}: {GRID_STEPS} steps against the single card's plain step: loss within {loss:.3e} (relative, "
+          f"gate {GRID_LOSS_REL}), params within {par:.3e} (gate {GRID_PARAM_TOL}) ({smi})", flush=True)
+    if not (loss <= GRID_LOSS_REL and par <= GRID_PARAM_TOL):
+        raise AssertionError(f"{label}: the sharded trajectory leaves JAX's bounds")
+
+
+def grid_step_times(label, cfg, steps, batch, state, smi):
+    """Each step of ``steps`` ({name: step}; "plain" first) from ``state`` on
+    ``batch``, in turns by CUDA events, 3 calls a turn."""
+    st = {}
+
+    def stepper(name):
+        st[name] = state
+
+        def one():
+            st[name] = steps[name](st[name], batch)[0]
+        return one
+
+    ms = in_turns({n: stepper(n) for n in steps}, dict.fromkeys(steps, 3))
+    print(f"{label}: the step at B={len(batch['past'])}, in turns by CUDA events: " + ", ".join(
+        f"{n} {ms[n]:.3f} ms ({ms[n] / ms['plain']:.2f}x)" for n in steps) + f" ({smi})", flush=True)
+
+
+def grid_transformer_30(dev, smi):
+    """21 (a): transformer-30 at TRAIN_B through train.train_loop on
+    sp_apply_fn (ring and gather) and pp_apply_fn (M = 2 and 4) on
+    [cuda:0] x 2, each against the plain ("xla") loop from the same state,
+    its in-loop evaluation counted; then the steps in turns."""
+    cfg = get_preset(TF_PRESET, batch_size=TRAIN_B, steps=GRID_STEPS, eval_every=1, train_impl="xla")
+    fam = transformer
+    train_d, test_d = synthetic_windows(cfg)
+    test_d = {k: v[:1024] for k, v in test_d.items()}
+    init = train.init_state(cfg, fam.init, train.make_optimizer(cfg), device=dev)
+    run = dict(device=dev, state=init, eval_data=test_d, extras_fn=fam.batch_extras)
+    ref, ref_hist = train.train_loop(cfg, fam.init, fam.apply, train_d, **run)
+    runs = grid_runs(dev)
+    for name, apply_fn in runs.items():
+        (state, hist), _ = drive(f"train {TF_PRESET} {name}",
+                                 lambda: train.train_loop(cfg, fam.init, apply_fn, train_d, **run), also=GRID_EVAL)
+        check_gaps(f"train {TF_PRESET} {name}", *trajectory_gaps(hist, ref_hist, state, ref), smi)
+    opt = train.make_optimizer(cfg)
+    steps = {name: train.make_train_step(cfg, fn, opt, gc_metric=False, extras_fn=fam.batch_extras)
+             for name, fn in {"plain": fam.apply, **runs}.items()}
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(train.batch_iterator(train_d, TRAIN_B, seed=2)).items()}
+    grid_step_times(f"train {TF_PRESET} sp / pp", cfg, steps, batch, init, smi)
+    for name in ("plain", "sp ring [cuda:0]x2", "pp M=4 [cuda:0]x2"):  # where a sharded step's extra time goes
+        profile_device(f"train {TF_PRESET} {name}: fast step", lambda name=name: steps[name](init, batch), 2, smi)
+
+
+def grad_gap(ga, gb):
+    return max((a - b).abs().max().item() / max(a.abs().max().item(), 1.0) for a, b in zip(ga, gb, strict=True))
+
+
+def grid_transformer_10s(dev, smi, batch=1024):
+    """21 (b): transformer-10s (100 + 100 frames, K = 4 peers, window 8) on
+    four sequence shards of [cuda:0] (100 % 4 == 0: the encoder sharded too):
+    one forward with noisy teacher forcing and its gradient, ring and
+    gather, against plain apply and autograd with the same draw; forward
+    and backward timed in turns."""
+    cfg = get_preset(TF10_PRESET)
+    m = cfg.model
+    params = params_from_numpy(cli.bench_params_np(cfg, 0), dev)
+    rng = np.random.default_rng(21)
+    past, fut = unit_rows(rng, dev, (batch, m.h_in)), unit_rows(rng, dev, (batch, m.h_out))
+    peers = unit_rows(rng, dev, (batch, cfg.n_other_users, m.h_out))
+    mask = (randn(rng, dev, (batch, cfg.n_other_users)) > -0.5).float()
+    mesh = sp.make_sp_mesh(4, devices=[dev] * 4)
+    fns = {"plain": lambda p, g: transformer.apply(p, m, past, fut, rng=g, teacher_prob=0.5, other_future_n=peers,
+                                                   other_mask=mask)}
+    for impl in ("ring", "gather"):
+        fns[f"sp {impl} [cuda:0]x4"] = lambda p, g, impl=impl: sp.sp_decode(
+            p, m, mesh, past, fut, rng=g, teacher_prob=0.5, other_future_n=peers, other_mask=mask, impl=impl)
+
+    def fwd_bwd(fn):
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        out = fn(tree_unflatten(params, leaves), torch.Generator(device=dev).manual_seed(5))
+        return out.detach(), torch.autograd.grad(((out - fut) ** 2).mean(), leaves)
+
+    ref, g_ref = fwd_bwd(fns["plain"])
+    for name, fn in list(fns.items())[1:]:
+        out, g = fwd_bwd(fn)
+        fwd, grad = (out - ref).abs().max().item(), grad_gap(g_ref, g)
+        print(f"{TF10_PRESET} {name}: B={batch}, the encoder sharded, one forward within {fwd:.3e} of plain apply "
+              f"(gate {GRID_FWD_TOL}), its gradient within {grad:.3e} of autograd's over max(max|g|, 1) (gate "
+              f"{GRID_GRAD_TOL}) ({smi})", flush=True)
+        if not (fwd <= GRID_FWD_TOL and grad <= GRID_GRAD_TOL):
+            raise AssertionError(f"{TF10_PRESET} {name}: the sharded pass leaves JAX's bounds")
+    ms = in_turns({n: (lambda fn=fn: fwd_bwd(fn)) for n, fn in fns.items()}, dict.fromkeys(fns, 2))
+    print(f"{TF10_PRESET}: forward and gradient at B={batch}, in turns by CUDA events: " + ", ".join(
+        f"{n} {ms[n]:.3f} ms ({ms[n] / ms['plain']:.2f}x)" for n in fns) + f" ({smi})", flush=True)
+
+
+def grid_tensor_parallel(dev, smi):
+    """21 (c): seq2seq-tf-30 at TRAIN_B on a (2 data, 2 model) grid of
+    [cuda:0] x 4: the decode against plain decode, one gradient against
+    autograd's, 3 steps against the single card's plain ("xla") step; the
+    steps in turns."""
+    cfg = get_preset(PRESET, batch_size=TRAIN_B, train_impl="xla")
+    m = cfg.model
+    params = params_from_numpy(oracle.init_params_np(0, m), dev)
+    mesh = parallel.make_mesh(dev, model_parallel=2, devices=[dev] * 4)
+    rng = np.random.default_rng(22)
+    batch = {"past": unit_rows(rng, dev, (TRAIN_B, m.h_in)), "future": unit_rows(rng, dev, (TRAIN_B, m.h_out))}
+    past_n, fut_n, _ = windows.normalize_window(batch["past"], batch["future"])
+    dec = (tp.tp_apply(tp.apply_tp_shardings(params, mesh), m, past_n) - seq2seq.decode(params, m, past_n)).abs().max()
+
+    def grads(apply_fn):
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        out = apply_fn(tree_unflatten(params, leaves), m, past_n, fut_n)
+        return torch.autograd.grad(((out - fut_n) ** 2).mean(), leaves)
+
+    tp_fn = tp.tp_apply_fn(mesh)
+    grad = max((a - b).abs().max().item() for a, b in zip(grads(seq2seq.apply), grads(tp_fn)))
+    label = f"train {PRESET} tp (2 data, 2 model) [cuda:0]x4"
+    print(f"{label}: B={TRAIN_B}, the decode within {dec.item():.3e} of plain decode (gate {TP_DECODE_TOL}), a "
+          f"gradient within {grad:.3e} of autograd's (gate {TP_GRAD_TOL}) ({smi})", flush=True)
+    if not (dec <= TP_DECODE_TOL and grad <= TP_GRAD_TOL):
+        raise AssertionError(f"{label}: leaves JAX's bounds")
+    opt = train.make_optimizer(cfg)
+    steps = {"plain": train.make_train_step(cfg, seq2seq.apply, opt),
+             "tp (2, 2)": train.make_train_step(cfg, tp_fn, opt)}
+    init = train.TrainState(params, opt.init(params), 0, torch.Generator())
+    states, hists = {}, {}
+    for name, step in steps.items():
+        st, hists[name] = init, []
+        for _ in range(GRID_STEPS):
+            st, met = step(st, batch)
+            hists[name].append({"loss": float(met["loss"])})
+        states[name] = st
+    check_gaps(label, *trajectory_gaps(hists["tp (2, 2)"], hists["plain"], states["tp (2, 2)"], states["plain"]), smi)
+    fast = {n: train.make_train_step(cfg, fn, opt, gc_metric=False)
+            for n, fn in (("plain", seq2seq.apply), ("tp (2, 2)", tp_fn))}
+    grid_step_times(label, cfg, fast, batch, init, smi)
+
+
+def grid_cli(smi):
+    """21 (d): the CLI on the one card: --seq-parallel 2 on transformer-30
+    exits with JAX's one-chip device-count message, on seq2seq-tf-30 with
+    its family message."""
+    n = torch.cuda.device_count()
+    _, code = quiet_cli(["train", "--preset", TF_PRESET, "--seq-parallel", "2", "--steps", "1", "--device", "cuda"])
+    want = f"need 2 devices for dp=1 x sp=2, have {n}" if n < 2 else 0
+    _, family = quiet_cli(["train", "--preset", PRESET, "--seq-parallel", "2", "--steps", "1", "--device", "cuda"])
+    print(f"train --preset {TF_PRESET} --seq-parallel 2 on {n} card(s): {code!r}; on {PRESET}: {family!r} ({smi})",
+          flush=True)
+    if code != want or not str(family).startswith("--seq-parallel applies to the transformer family only"):
+        raise AssertionError("train --seq-parallel did not refuse as JAX's CLI does")
+
+
+def drive_grids(dev, smi):
+    """Phase 21: sequence, pipeline and tensor parallelism, (a) to (d)."""
+    t0 = time.perf_counter()
+    grid_transformer_30(dev, smi)
+    torch.cuda.empty_cache()
+    grid_transformer_10s(dev, smi)
+    torch.cuda.empty_cache()
+    grid_tensor_parallel(dev, smi)
+    grid_cli(smi)
+    print(f"phase 21 sequence, pipeline and tensor parallelism: {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only on the card")
@@ -6175,6 +6381,13 @@ def main():
     # on the one card), the CLI under the launcher, sharded serving and the
     # daemon on a mesh of the one card named four times
     drive_dp(dev, smi)
+    torch.cuda.empty_cache()
+
+    phase("21 sequence, pipeline and tensor parallelism")
+    # 21. the transformer's training pass sequence- and pipeline-parallel and
+    # the seq2seq family tensor-parallel, on grids of the one card, each
+    # against the single card's plain path; the CLI's one-card refusals
+    drive_grids(dev, smi)
     torch.cuda.empty_cache()
 
     phase("done")

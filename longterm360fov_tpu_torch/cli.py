@@ -39,12 +39,6 @@ import torch
 
 __all__ = ["main", "serve_bench", "bench_params_np", "card", "extract_features"]
 
-# train flags of the JAX CLI that the port does not have yet, and the
-# ROADMAP.md item that brings each
-_NOT_PORTED = {
-    "seq_parallel": "--seq-parallel: ROADMAP.md, slice 'parallelism'",
-    "pipeline_parallel": "--pipeline-parallel: ROADMAP.md, slice 'parallelism'",
-}
 # serve-bench and predict --impl, JAX's names: "fused" the hand-written
 # kernels, "xla" the plain PyTorch path
 SERVE_IMPLS = ("xla", "fused")
@@ -258,9 +252,12 @@ def _build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--data-parallel", action="store_true",
                     help="one rank a process under torchrun / python -m torch.distributed.run, each on "
                     "cuda:LOCAL_RANK (gloo on --device cpu); without a launcher a world of one")
-    # JAX train flags not ported yet: each raises, naming its ROADMAP item
-    tr.add_argument("--seq-parallel", type=int, default=0)
-    tr.add_argument("--pipeline-parallel", type=int, default=0)
+    tr.add_argument("--seq-parallel", type=int, default=0, metavar="N",
+                    help="shard the transformer training horizon over N devices by ring attention "
+                    "(parallel.sp); the devices left over fill a 'data' axis. Transformer family only")
+    tr.add_argument("--pipeline-parallel", type=int, default=0, metavar="S",
+                    help="pipeline the transformer decoder's layers over S stage devices (GPipe "
+                    "microbatches, parallel.pp). Transformer family only; S must divide the layer count")
     tr.add_argument("--tb-dir", help="TensorBoard scalar log dir (optional; needs the tensorboard package)")
 
     ev = sub.add_parser("eval", help="evaluate a checkpoint")
@@ -603,9 +600,6 @@ def cmd_train(args):
     from .models import get_family
     from .ops.fused_lstm import exact_f32_matmul
 
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"not ported yet: {item}")
     if args.tb_dir:
         try:  # checked before the data and the model are made
             from torch.utils.tensorboard import SummaryWriter  # noqa: F401
@@ -620,10 +614,11 @@ def cmd_train(args):
         over["model_param_dtype"] = "bfloat16"
     cfg = _preset_cfg(args, **over)
     fam = get_family(cfg.model_family)
+    grids = _parallel_grids(args, cfg)
     device = _device(args.device)
     exact_f32_matmul()
     if not cfg.data_parallel:
-        _train(args, cfg, fam, device)
+        _train(args, cfg, fam, device, grids=grids)
         return
     from .parallel import init_multihost, make_mesh
     from .parallel.multihost import local_device
@@ -638,10 +633,70 @@ def cmd_train(args):
             torch.distributed.destroy_process_group()
 
 
-def _train(args, cfg, fam, device, mesh=None):
+def _parallel_grids(args, cfg):
+    """``--seq-parallel`` and ``--pipeline-parallel``, checked in the JAX
+    CLI's order with its messages → (the SP grid, the PP grid), each None
+    without its flag. The grids hold the local devices of ``--device``'s
+    type (``parallel.grid.local_devices``): every visible card, or the one
+    CPU device."""
+    kind = torch.device(args.device).type
+    sp_mesh = pp_mesh = None
+    if args.seq_parallel:
+        if args.seq_parallel < 1:
+            raise SystemExit(f"--seq-parallel must be >= 1 (got {args.seq_parallel})")
+        if cfg.model_family != "transformer":
+            raise SystemExit(
+                "--seq-parallel applies to the transformer family only "
+                "(LSTM recurrence carries O(1) state over any horizon)"
+            )
+        if cfg.data_parallel:
+            raise SystemExit(
+                "--seq-parallel already composes with data parallelism "
+                "(spare devices auto-fill the 'data' mesh axis); drop "
+                "--data-parallel"
+            )
+        if cfg.model.h_out % args.seq_parallel:
+            raise SystemExit(f"horizon {cfg.model.h_out} not divisible by --seq-parallel {args.seq_parallel}")
+        from .parallel.sp import make_sp_mesh
+
+        try:
+            sp_mesh = make_sp_mesh(args.seq_parallel, device_type=kind)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    if args.pipeline_parallel:
+        if cfg.model_family != "transformer":
+            raise SystemExit(
+                "--pipeline-parallel applies to the transformer family "
+                "only (the LSTM stacks are too shallow to amortize "
+                "pipeline bubbles — SURVEY §2.2)"
+            )
+        if cfg.data_parallel or sp_mesh is not None:
+            raise SystemExit(
+                "--pipeline-parallel is exclusive with --data-parallel "
+                "and --seq-parallel (one strategy per run)"
+            )
+        if cfg.model.layers % args.pipeline_parallel:
+            raise SystemExit(
+                f"{cfg.model.layers} decoder layers not divisible by --pipeline-parallel {args.pipeline_parallel}"
+            )
+        from .parallel.pp import make_pp_mesh
+
+        try:
+            pp_mesh = make_pp_mesh(args.pipeline_parallel, device_type=kind)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    return sp_mesh, pp_mesh
+
+
+def _train(args, cfg, fam, device, mesh=None, grids=(None, None)):
     """``train``'s body on ``device``; with ``mesh`` (``--data-parallel``)
-    ``parallel.train_loop_dp`` on this rank, and only rank 0 prints."""
+    ``parallel.train_loop_dp`` on this rank, and only rank 0 prints; with
+    ``grids`` (:func:`_parallel_grids`) the sequence- or pipeline-parallel
+    forward, with the batch rounded to the grid's 'data' axis or stage
+    count, as JAX rounds it."""
     from . import train as TR
+
+    sp_mesh, pp_mesh = grids
 
     say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     train_d, test_d = _load_or_synth_data(args, cfg)
@@ -660,6 +715,23 @@ def _train(args, cfg, fam, device, mesh=None):
             raise SystemExit(f"--accum {cfg.accum} exceeds batch size {cfg.batch_size}")
         say(f"rounding batch_size down to {bs} (multiple of --accum)")
         cfg = cfg.replace(batch_size=bs)
+    nd = what = None
+    if sp_mesh is not None and "data" in sp_mesh.shape:
+        nd, what = sp_mesh.shape["data"], "SP data axis"
+    elif pp_mesh is not None:
+        nd, what = pp_mesh.shape["stage"], "PP microbatch count"
+    if nd is not None:
+        # each of the accum microbatches must itself split over nd
+        mult = nd * cfg.accum if cfg.accum > 1 else nd
+        bs = (cfg.batch_size // mult) * mult
+        if bs == 0:
+            raise SystemExit(
+                f"batch size {cfg.batch_size} too small for the {what} ({nd}"
+                + (f" x --accum {cfg.accum}" if cfg.accum > 1 else "") + ")"
+            )
+        if bs != cfg.batch_size:
+            say(f"rounding batch_size down to {bs} (multiple of {what} {nd})")
+            cfg = cfg.replace(batch_size=bs)
     state = None
     if args.resume and args.ckpt_dir:
         if mesh is not None and mesh.rank:
@@ -678,8 +750,22 @@ def _train(args, cfg, fam, device, mesh=None):
         fused_tf_fn=getattr(fam, "apply_fused_tf", None),
         fused_ss_fn=getattr(fam, "apply_fused_ss", None),
     )
+    apply_fn = fam.apply
+    if sp_mesh is not None:
+        from .parallel.sp import sp_apply_fn
+
+        apply_fn = sp_apply_fn(sp_mesh)
+        kw.update(fused_tf_fn=None, fused_ss_fn=None)
+        say(f"sequence parallelism: horizon {cfg.model.h_out} ring-sharded over mesh {dict(sp_mesh.shape)}")
+    if pp_mesh is not None:
+        from .parallel.pp import pp_apply_fn
+
+        apply_fn = pp_apply_fn(pp_mesh)
+        kw.update(fused_tf_fn=None, fused_ss_fn=None)
+        say(f"pipeline parallelism: {cfg.model.layers} decoder layers over {pp_mesh.shape['stage']} stages "
+            f"(GPipe microbatching)")
     if mesh is None:
-        state, history = TR.train_loop(cfg, fam.init, fam.apply, train_d, device=device, **kw)
+        state, history = TR.train_loop(cfg, fam.init, apply_fn, train_d, device=device, **kw)
     else:
         from .parallel import train_loop_dp
 

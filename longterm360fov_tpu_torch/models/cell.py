@@ -10,11 +10,12 @@ to ``[x, h]``, gate order (i, f, g, o), and one bias ``(4 * hidden,)``.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-__all__ = ["LSTMParams", "LSTMState", "init_lstm", "lstm_cell", "get_cell_fn", "round_to", "mm"]
+__all__ = ["LSTMParams", "LSTMState", "Shards", "init_lstm", "lstm_cell", "tp_lstm_cell", "column_parallel",
+           "row_parallel", "get_cell_fn", "round_to", "mm"]
 
 
 class LSTMParams(NamedTuple):
@@ -58,6 +59,51 @@ def lstm_cell(
     tier."""
     h, c = state
     gates = mm(torch.cat([x, h], dim=-1).float(), params.w.float(), compute_dtype) + params.b.float()
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+class Shards(NamedTuple):
+    """A leaf of tensor parallelism (``parallel.tp.apply_tp_shardings``): its
+    parts in model-shard order, each on its shard's device, split along
+    ``axis``; ``axis`` None is the whole leaf, replicated, one part on the
+    row's first device."""
+
+    parts: Tuple[torch.Tensor, ...]
+    axis: Optional[int]
+
+
+def column_parallel(z: torch.Tensor, w: Shards, b: Shards) -> torch.Tensor:
+    """``z @ W + b`` in f32 with W's columns split over the model shards: each
+    shard computes its columns on its device, gathered in order onto the
+    device of ``z`` (the whole product there where W is replicated)."""
+    if w.axis is None:
+        return z.float() @ w.parts[0].float() + b.parts[0].float()
+    return torch.cat([(z.float().to(wp.device) @ wp.float() + bp.float()).to(z.device)
+                      for wp, bp in zip(w.parts, b.parts)], dim=-1)
+
+
+def row_parallel(h: torch.Tensor, w: Shards, b: Shards) -> torch.Tensor:
+    """``h @ W + b`` in f32 with W's rows (the contraction) split over the
+    model shards: each shard's partial product on its device, summed in
+    shard order onto the device of ``h``, then the replicated bias."""
+    if w.axis is None:
+        return h.float() @ w.parts[0].float() + b.parts[0].float()
+    k, acc = w.parts[0].shape[0], None
+    for m, wp in enumerate(w.parts):
+        part = (h[..., m * k:(m + 1) * k].float().to(wp.device) @ wp.float()).to(h.device)
+        acc = part if acc is None else acc + part
+    return acc + b.parts[0].float()
+
+
+def tp_lstm_cell(params: LSTMParams, x: torch.Tensor, state: LSTMState) -> LSTMState:
+    """:func:`lstm_cell` on a layer of :class:`Shards`: the gate product
+    column-parallel (:func:`column_parallel`), the cell update replicated on
+    the device of ``x`` (the tensor-parallel cell; f32 products)."""
+    h, c = state
+    gates = column_parallel(torch.cat([x, h], dim=-1), params.w, params.b)
     i, f, g, o = gates.chunk(4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)

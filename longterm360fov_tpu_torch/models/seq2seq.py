@@ -26,7 +26,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from .. import draws
-from .cell import get_cell_fn, init_lstm
+from .cell import Shards, get_cell_fn, init_lstm, row_parallel, tp_lstm_cell
 
 __all__ = [
     "Seq2SeqConfig",
@@ -90,6 +90,14 @@ def init(gen: torch.Generator, cfg: Seq2SeqConfig, *, device) -> Params:
     }
 
 
+def _cell_fn(params: Params, cfg: Seq2SeqConfig):
+    """The step loops' cell: the tensor-parallel cell on a tree of
+    ``Shards`` (``parallel.tp``), else ``cfg.cell``'s."""
+    if isinstance(params["encoder"][0].w, Shards):
+        return tp_lstm_cell
+    return get_cell_fn(cfg.cell)
+
+
 def _run(cell_fn, layer_params, states, x):
     new_states = []
     for p, st in zip(layer_params, states):
@@ -103,7 +111,7 @@ def _encode(params: Params, cfg: Seq2SeqConfig, past_n: torch.Tensor):
     """Encoder stack over the past window (B, H_in, D) → final per-layer
     (h, c) states, on the configured cell. The steps' inputs are the rows
     of a time-major copy, contiguous, as the kernel cell takes them."""
-    cell_fn = get_cell_fn(cfg.cell)
+    cell_fn = _cell_fn(params, cfg)
     xs = past_n.to(cfg.dtype).transpose(0, 1).contiguous()  # (T, B, D)
     z = xs.new_zeros((xs.shape[1], cfg.hidden))
     states = [(z, z)] * cfg.layers
@@ -113,7 +121,11 @@ def _encode(params: Params, cfg: Seq2SeqConfig, past_n: torch.Tensor):
 
 
 def _project(params: Params, h: torch.Tensor) -> torch.Tensor:
-    return h.float() @ params["proj"]["w"].float() + params["proj"]["b"].float()
+    """The output projection in f32; row-parallel on a tree of ``Shards``."""
+    w, b = params["proj"]["w"], params["proj"]["b"]
+    if isinstance(w, Shards):
+        return row_parallel(h, w, b)
+    return h.float() @ w.float() + b.float()
 
 
 def draw_coins(gen, teacher_prob: float, t_out: int, batch: int) -> torch.Tensor:
@@ -153,7 +165,7 @@ def apply(
     ``context``: optional (B, ctx_dim) vector appended to every decoder
     input, or (B, H_out, ctx_dim) where step t gets ``context[:, t]``.
     """
-    cell_fn = get_cell_fn(cfg.cell)
+    cell_fn = _cell_fn(params, cfg)
     if future_n is not None and coins is None and rng is not None:
         coins = draw_coins(rng, teacher_prob, cfg.h_out, past_n.shape[0])
     dt = cfg.dtype

@@ -230,6 +230,16 @@ def _decoder_block(layer, x, enc_mem, peer_mem, peer_valid, *, causal_mask,
     else:
         q = _split_heads(_mm(h_in, layer["self_attn"]["wq"], cd))
         x = x + _attention_qkv(layer["self_attn"], q, *self_kv, mask=causal_mask, compute_dtype=cd)
+    return _decoder_tail(layer, x, enc_mem, peer_mem, peer_valid, cross_kv=cross_kv, peer_kv=peer_kv,
+                         peer_tmask=peer_tmask, peer_dv=peer_dv, compute_dtype=cd)
+
+
+def _decoder_tail(layer, x, enc_mem, peer_mem, peer_valid, *, cross_kv=None, peer_kv=None, peer_tmask=None,
+                  peer_dv=None, compute_dtype=torch.float32):
+    """A decoder layer after its self-attention residual: cross-attention,
+    peer attention and the MLP, each position on its own (the sequence
+    parallel pass runs it on each shard's slice of the tokens)."""
+    cd = compute_dtype
     h2 = _ln(layer["ln2"], x)
     if cross_kv is None:
         x = x + _attention(layer["cross_attn"], h2, enc_mem, compute_dtype=cd)

@@ -33,7 +33,7 @@ from .. import train as train_mod
 from ..config import ExperimentConfig
 from ..draws import RankDraw
 from ..params import tree_leaves, tree_unflatten
-from . import multihost
+from . import grid, multihost
 
 __all__ = ["DataMesh", "make_mesh", "shard_batch", "replicate_state", "make_sharded_train_step", "train_loop_dp"]
 
@@ -115,15 +115,22 @@ class DataMesh:
         return float(t[0])
 
 
-def make_mesh(device=None, *, model_parallel: int = 1) -> DataMesh:
+def make_mesh(device=None, *, model_parallel: int = 1, devices=None):
     """The ``('data',)`` mesh of this rank: every rank of the default group
     once ``multihost.init_multihost`` started one, else a world of one,
-    computing on ``multihost.local_device(device)``."""
+    computing on ``multihost.local_device(device)``.
+
+    ``model_parallel`` > 1 gives tensor parallelism's ``('data', 'model')``
+    grid (``grid.DeviceGrid``) over ``devices``, default the local devices of
+    ``device``'s type (every visible card without one), in rows of
+    ``model_parallel``, as JAX's ``make_mesh``."""
     if model_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={model_parallel}: the ('data', 'model') mesh of tensor parallelism is "
-            f"slice P-3 of the port (ROADMAP.md)"
-        )
+        kind = "cuda" if device is None else torch.device(device).type
+        devices = grid.device_list(devices, kind)
+        n = len(devices)
+        if n % model_parallel:
+            raise ValueError(f"{n} devices not divisible by mp={model_parallel}")
+        return grid.grid_of(devices, (n // model_parallel, model_parallel), ("data", "model"))
     device = multihost.local_device(device)
     if not dist.is_initialized():
         return DataMesh(device)

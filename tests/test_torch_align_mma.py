@@ -8,6 +8,7 @@ as mma.sync's B fragments, and its products, emulated as the tensor cores
 compute them, held against ``dgates · Wᵀ``; the kernels themselves are held
 against their plain versions on the card (``tests/test_torch_kernel_cuda.py``)."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import numpy as np
 import pytest
 import torch

@@ -3,6 +3,7 @@ against the JAX CLI's (``--h-in``/``--h-out`` with ``--peer-align`` and
 ``--peers``: the same config and model hashes for the same argv), a
 checkpoint trained with them, and ``serve-bench --impl``'s JAX names."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import json
 
 import pytest

@@ -4,11 +4,12 @@ the same dest, option strings, default, choices, type, required, const and
 nargs, but for the documented divergences (ROADMAP.md, known divergences):
 ``--device`` on the subcommands that compute, ``serve-bench --seed``, and
 ``--impl`` defaulting to "fused" on ``serve-bench``, ``predict`` and
-``stream-sim``. The parallel flags are parsed as JAX parses them; the
-data-parallel ones run, the sequence- and pipeline-parallel ones raise,
-naming the parallelism slice."""
+``stream-sim``. The parallel flags are parsed as JAX parses them, and each
+runs on the CPU."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import argparse
+import json
 import threading
 
 import numpy as np
@@ -19,6 +20,7 @@ from longterm360fov_tpu import cli as jax_cli
 from longterm360fov_tpu_torch import cli, serving
 from longterm360fov_tpu_torch.config import get_preset
 from longterm360fov_tpu_torch.models import get_family
+from longterm360fov_tpu_torch.parallel import grid
 from longterm360fov_tpu_torch.params import tensor_to_array
 
 COMPUTING = ("extract-features", "train", "eval", "serve-bench", "predict", "serve", "stream-sim", "serve-daemon")
@@ -60,22 +62,32 @@ def test_flags_match_jax(cmd):
         assert ours["device"]["default"] == "cuda"
 
 
+@pytest.fixture(scope="module")
+def small_store(tmp_path_factory):
+    """A small synthetic store from ``prepare-data`` (2 users of one video,
+    400 frames, 30 + 30-frame windows, K = 4 other-user slots)."""
+    win = str(tmp_path_factory.mktemp("store") / "win.npz")
+    cli.main(["prepare-data", "--out", win, "--n-users", "2", "--n-videos", "1", "--n-frames", "400",
+              "--n-other-users", "4"])
+    return win
+
+
 @pytest.mark.parametrize("argv", [
     ["train", "--preset", "seq2seq-tf-30", "--data-parallel", "--steps", "1", "--batch-size", "8"],
-    ["train", "--preset", "transformer-30", "--seq-parallel", "2"],
-    ["train", "--preset", "transformer-30", "--pipeline-parallel", "2"],
+    ["train", "--preset", "transformer-30", "--seq-parallel", "2", "--steps", "1", "--batch-size", "8"],
+    ["train", "--preset", "transformer-30", "--pipeline-parallel", "2", "--steps", "1", "--batch-size", "8"],
     ["serve-daemon", "--preset", "seq2seq-tf-30", "--params", "p.npz", "--data-parallel", "--port", "0",
      "--max-batch", "2"],
 ], ids=["data-parallel", "seq-parallel", "pipeline-parallel", "daemon-data-parallel"])
-def test_parallel_flags_raise_naming_the_slice(argv, tmp_path, monkeypatch, capsys):
-    """--seq-parallel and --pipeline-parallel raise, naming the parallelism
-    slice; the data-parallel flags (slice P-1) run: train in a world of one,
+def test_parallel_flags_run_on_cpu(argv, tmp_path, monkeypatch, capsys, small_store):
+    """Every parallel flag runs on the CPU: --seq-parallel and
+    --pipeline-parallel train on 8 CPU entries (JAX's 8 virtual devices) and
+    print their grids; the data-parallel flags run, train in a world of one,
     the daemon on the one CPU device, which answers."""
-    if "--data-parallel" not in argv:
-        with pytest.raises(SystemExit, match="not ported yet: .*slice 'parallelism'"):
-            cli.main([*argv, "--device", "cpu"])
-        return
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(grid, "local_devices", lambda kind="cuda": [torch.device("cpu")] * 8)
+    if argv[0] == "train":
+        argv = [*argv, "--data", small_store]
     if argv[0] == "serve-daemon":
         cfg = get_preset("seq2seq-tf-30")
         params = get_family(cfg.model_family).init(torch.Generator().manual_seed(0), cfg.model, device="cpu")
@@ -97,5 +109,11 @@ def test_parallel_flags_raise_naming_the_slice(argv, tmp_path, monkeypatch, caps
     out = capsys.readouterr().out
     if argv[0] == "serve-daemon":
         assert len(seen["reply"]["yaw"]) == 30 and '"listening"' in out
+    elif "--seq-parallel" in argv:
+        assert "sequence parallelism: horizon 30 ring-sharded over mesh {'data': 4, 'seq': 2}" in out
+        assert np.isfinite(json.loads(out.strip().splitlines()[-1])["loss"])
+    elif "--pipeline-parallel" in argv:
+        assert "pipeline parallelism: 2 decoder layers over 2 stages (GPipe microbatching)" in out
+        assert np.isfinite(json.loads(out.strip().splitlines()[-1])["loss"])
     else:
         assert '"n_devices": 1' in out

@@ -2,6 +2,7 @@
 byte-equal ``hash``/``model_hash``, so both packages agree on what a
 checkpoint means."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 
 import pytest

@@ -6,6 +6,7 @@ against the einsum. The CUDA kernel itself is checked on the card
 (``tests/test_torch_kernel_cuda.py``, ``chip_smoke.py``).
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import jax.numpy as jnp
 import numpy as np
 import pytest

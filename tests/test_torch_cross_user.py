@@ -9,6 +9,7 @@ draws them (the draw is patched on each side: jax.random's bits cannot be
 reproduced in torch).
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 import json
 from functools import partial

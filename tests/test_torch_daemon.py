@@ -9,6 +9,7 @@ requests agree within 1e-5 rad (``tests/test_torch_serve_slice.py``'s bound)
 and their prefetch tiles are equal but for tiles whose centre lies within
 1e-4 degrees of the field of view's edge."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 import math
 import threading

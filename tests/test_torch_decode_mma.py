@@ -7,6 +7,7 @@ shared memory and their weight streams' order) and the bf16 LSTM cell
 on the CPU. The kernels themselves are held against their plain versions on
 the card (``tests/test_torch_kernel_cuda.py``)."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import numpy as np
 import pytest
 import torch

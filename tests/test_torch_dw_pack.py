@@ -7,6 +7,7 @@ and db of every reduction (teacher-forced, scheduled sampling with and
 without a context, the lockstep decoder, its peer encoder). The card tests
 hold the kernel against this plain version."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import numpy as np
 import pytest
 import torch

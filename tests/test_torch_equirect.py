@@ -10,6 +10,7 @@ differences of small spectral amplitudes: 1e-5 on maps normalised to
 (1e-5 against JAX's reference, 1e-4 against its interpret-mode kernel).
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import jax
 import jax.numpy as jnp
 import numpy as np

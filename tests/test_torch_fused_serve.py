@@ -7,6 +7,7 @@ The kernel itself runs only on the card: tests/test_torch_kernel_cuda.py
 compares it with the plain version there.
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import jax
 import jax.numpy as jnp
 import numpy as np

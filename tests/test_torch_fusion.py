@@ -9,6 +9,7 @@ Weights cross between the packages (params_from_numpy), seeds do not; both
 sides get the same numpy inputs and the same coins.
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import json
 from functools import partial
 

@@ -1,6 +1,7 @@
 """The port's geometry and windowing against the JAX functions on the same
 numpy inputs, at atol 1e-6."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import jax.numpy as jnp
 import numpy as np
 import pytest

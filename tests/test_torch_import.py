@@ -2,6 +2,7 @@
 chip_smoke.py, import with jax and the JAX package made unimportable — the
 machine with the card has no jax."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import os
 import subprocess
 import sys
@@ -227,3 +228,40 @@ def test_a_world_of_ranks_runs_without_jax(tmp_path):
                                env={"PYTHONPATH": str(site)})
     assert [r["steps"] for r in results] == [2, 2]
     assert all(r["shape"] == (4, 5, 3) and r["loaded"] == [] and r["blocked"] for r in results)
+
+
+# slices P-2 and P-3 (sequence, pipeline and tensor parallelism): new modules
+# on device grids of one process
+_SLICE_P_2_3_MODULES = ("parallel.grid", "parallel.sp", "parallel.pp", "parallel.tp")
+
+_GRID_PROBE = r"""
+import importlib
+for mod in NEW:
+    importlib.import_module('longterm360fov_tpu_torch.' + mod)
+import torch
+from longterm360fov_tpu_torch import cli, parallel
+from longterm360fov_tpu_torch.models import seq2seq, transformer
+cfg = seq2seq.Seq2SeqConfig(d=3, hidden=16, layers=2, h_in=4, h_out=4)
+params = transformer.init(torch.Generator().manual_seed(0), cfg, device='cpu')
+past, fut = torch.randn(4, 4, 3), torch.randn(4, 4, 3)
+ref = transformer.apply(params, cfg, past, fut)
+for out in (parallel.sp_decode(params, cfg, parallel.make_sp_mesh(2, devices=['cpu'] * 2), past, fut),
+            parallel.pp_decode(params, cfg, parallel.make_pp_mesh(2, devices=['cpu'] * 2), past, fut)):
+    assert (out - ref).abs().max() < 1e-5
+s2s = seq2seq.init(torch.Generator().manual_seed(0), cfg, device='cpu')
+mesh = parallel.make_mesh('cpu', model_parallel=2, devices=['cpu'] * 4)
+out = parallel.tp_apply(parallel.apply_tp_shardings(s2s, mesh), cfg, past)
+assert (out - seq2seq.decode(s2s, cfg, past)).abs().max() < 1e-5
+assert not hasattr(cli, '_NOT_PORTED')
+print('ok')
+"""
+
+
+def test_sequence_pipeline_and_tensor_parallelism_run_without_jax():
+    """The slices' modules import, and a sequence-, a pipeline- and a
+    tensor-parallel forward run on grids of CPU entries, with jax and the
+    JAX package unimportable; the CLI has no unported flag left."""
+    probe = _BLOCKER + _GRID_PROBE.replace("NEW", repr(_SLICE_P_2_3_MODULES))
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

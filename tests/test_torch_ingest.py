@@ -15,6 +15,7 @@ the ingested traces 1.2e-7, and ``slerp`` 9.5e-7 between endpoints 174°
 apart, where an ulp of sin(ω) is divided by sin(ω) ≈ 0.1 (the sines are
 torch's and the C library's, each within an ulp)."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import json
 
 import numpy as np

@@ -7,6 +7,7 @@ without the repo's conftest, which sets jax up for the CPU suite:
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 
 import numpy as np

@@ -9,6 +9,7 @@ are the JAX suite's (``tests/test_lstm_align.py``): L = 1 and 2, K = 3,
 h_in = 4, T = 5, H = 16, C = 8, B = 8. Inputs come from numpy.
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import jax
 import jax.numpy as jnp
 import numpy as np

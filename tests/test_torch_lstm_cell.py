@@ -10,6 +10,7 @@ The CUDA kernel is held against ``lstm_cell`` on the card
 (tests/test_torch_kernel_cuda.py, chip_smoke.py).
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 
 import jax

@@ -18,6 +18,7 @@ term), and the port's bf16 differs from its own f32 by at least half the
 gap: a version that forgets to round fails both.
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 
 import jax

@@ -5,6 +5,7 @@ or hangs ends in bounded time; and the CLI's ``train --data-parallel --device
 cpu`` under ``python -m torch.distributed.run`` against the same command in
 a world of one."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import json
 import os
 import subprocess

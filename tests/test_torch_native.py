@@ -5,6 +5,7 @@ against its own plain versions: ``parse_trace_bytes`` and
 tests/test_native.py and on seeded traces; the checks that refuse bad
 arguments; the build, which raises naming the compiler where there is none."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import os
 from pathlib import Path
 

@@ -13,6 +13,7 @@ torch keeps w_ih (4H, D) and w_hh (4H, H) with two biases, so
 W = [w_ih.T; w_hh.T] and b = b_ih + b_hh.
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import numpy as np
 import pytest
 

@@ -7,6 +7,7 @@ whole-sequence kernels and ignore it, as in JAX. The cell kernel has no
 backward (nor has the TPU kernel): a step loop under grad refuses it. The
 transformer family has no LSTM cell, and ignores ``cell``, as in JAX."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 
 import pytest

@@ -9,6 +9,7 @@ single-device references run here. Weights cross between the packages as
 numpy (params_from_numpy).
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 import textwrap
 from functools import partial
@@ -318,9 +319,19 @@ def test_batch_is_rounded_to_the_world_and_accum_checked_per_shard():
     assert str(ours.value) == str(ref.value) == "batch size 2 not divisible by accum=4"
 
 
-def test_the_mesh_refuses_model_parallel_naming_slice_p3():
-    with pytest.raises(NotImplementedError, match="slice P-3"):
-        parallel.make_mesh("cpu", model_parallel=2)
+def test_the_mesh_of_model_parallel_is_a_data_model_grid():
+    """model_parallel > 1: JAX's ('data', 'model') grid over 8 entries in
+    rows of mp, and JAX's message where mp does not divide them."""
+    mesh = parallel.make_mesh("cpu", model_parallel=2, devices=["cpu"] * 8)
+    ref = jax_parallel.make_mesh(model_parallel=2)
+    assert mesh.axis_names == ref.axis_names == ("data", "model")
+    assert mesh.devices.shape == ref.devices.shape == (4, 2) and mesh.devices.size == 8
+    assert dict(mesh.shape) == dict(ref.shape) == {"data": 4, "model": 2}
+    with pytest.raises(ValueError) as ours:
+        parallel.make_mesh("cpu", model_parallel=3, devices=["cpu"] * 8)
+    with pytest.raises(ValueError) as theirs:
+        jax_parallel.make_mesh(model_parallel=3)
+    assert str(ours.value) == str(theirs.value) == "8 devices not divisible by mp=3"
 
 
 def test_the_default_device_is_the_card_of_the_local_rank(monkeypatch):

@@ -6,6 +6,7 @@ agree with JAX's ``make_sharded_predict_fn``; the batcher's ``divisor``
 ladder and its validation are JAX's; a daemon on a mesh answers as one
 without."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 import threading
 

@@ -29,6 +29,7 @@ sum of JAX's; equal in 99.9 % of the entries on the fused route (read
 99.995 % and up), 95 % on the XLA route (read 98.9 % and up).
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import json
 
 import jax

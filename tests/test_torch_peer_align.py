@@ -9,6 +9,7 @@ draws them (the draw is patched on each side). The JAX Pallas kernels run
 in interpret mode.
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import json
 from functools import partial
 
@@ -311,17 +312,28 @@ def _last_json(out):
     return json.loads(out.strip().splitlines()[-1])
 
 
-def test_cli_train_eval_serve_bench_of_the_preset_on_cpu(tmp_path, capsys):
+@pytest.fixture(scope="module")
+def small_store(tmp_path_factory):
+    """A small synthetic store from ``prepare-data``: 8 users of one video
+    (K = 7 real peers), 1000 frames, 100 + 100-frame windows (one test
+    window a viewer)."""
+    win = str(tmp_path_factory.mktemp("store") / "win.npz")
+    cli.main(["prepare-data", "--out", win, "--n-users", "8", "--n-videos", "1", "--n-frames", "1000",
+              "--h-in", "100", "--h-out", "100", "--n-other-users", "7"])
+    return win
+
+
+def test_cli_train_eval_serve_bench_of_the_preset_on_cpu(tmp_path, capsys, small_store):
     """The preset's three subcommands at tiny batches on the CPU (the
-    kernels' plain versions): 2 train steps on the synthetic store with
-    K = 7 peers and 100 + 100 frames, eval of the checkpoint, serve-bench."""
+    kernels' plain versions): 2 train steps on a small store with K = 7
+    peers and 100 + 100 frames, eval of the checkpoint, serve-bench."""
     ck = str(tmp_path / "ck")
-    cli.main(["train", "--preset", PRESET, "--steps", "2", "--batch-size", "8", "--device", "cpu",
-              "--ckpt-dir", ck])
+    cli.main(["train", "--preset", PRESET, "--data", small_store, "--steps", "2", "--batch-size", "8",
+              "--device", "cpu", "--ckpt-dir", ck])
     res = _last_json(capsys.readouterr().out)
     assert res["step"] == 2 and np.isfinite(res["loss"]) and res["teacher_prob"] < 1.0
     assert np.isfinite(res["eval_great_circle_deg"])
-    cli.main(["eval", "--preset", PRESET, "--ckpt-dir", ck, "--device", "cpu", "--json"])
+    cli.main(["eval", "--preset", PRESET, "--data", small_store, "--ckpt-dir", ck, "--device", "cpu", "--json"])
     ev = _last_json(capsys.readouterr().out)
     assert len(ev["error_by_step_deg"]) == 100 and ev["n_windows"] > 0
     cli.main(["serve-bench", "--preset", PRESET, "--batch", "4", "--iters", "1", "--device", "cpu"])

@@ -11,6 +11,7 @@ angle between the two predicted directions, because yaw alone is
 ill-conditioned near the poles; the prefetch tiles equal but for tiles whose
 centre sits within 5e-3 degrees of the field of view's edge."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import json
 import math
 import threading

@@ -6,6 +6,7 @@ device trace, the anomaly scope), ``plots`` (both packages write each
 figure), and ``eval --plot`` and ``train --tb-dir`` end to end, with the
 messages that name matplotlib and tensorboard where they are absent."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import glob
 import json
 import os

@@ -1,6 +1,7 @@
 """The port's seq2seq model against the JAX seq2seq, with the JAX weights
 carried across by params_from_numpy, and against the numpy oracle."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 
 import jax

@@ -23,6 +23,7 @@ same way they are equal, else a bf16 step apart (read: 0.0 over 16 rows,
 entry may stand one bf16 step of its value more.
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 
 import jax

@@ -2,6 +2,7 @@
 packed serve program, the tile-prefetch functions, the DynamicBatcher's
 padding invariance, and the export-npz loader."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 
 import jax

@@ -8,6 +8,7 @@ the same residual contract the CUDA kernels keep. Weights cross between the
 packages (params_from_numpy), seeds do not: inputs come from numpy.
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import jax
 import jax.numpy as jnp
 import numpy as np

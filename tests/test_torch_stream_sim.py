@@ -9,6 +9,7 @@ Hit rates are counts over viewers x ticks (or windows x horizon) rounded to
 the rounding (every reading so far was equal). Tiles per frame are equal at
 their rounding to 2 places."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import jax
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ Weights cross between the packages (params_from_numpy), seeds do not; both
 sides get the same numpy batches.
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 import json
 from functools import partial
@@ -432,17 +433,28 @@ def _last_json(out):
     return json.loads(out.strip().splitlines()[-1])
 
 
-def test_cli_train_then_eval_on_cpu(tmp_path, capsys):
+@pytest.fixture(scope="module")
+def small_store(tmp_path_factory):
+    """A small synthetic store from ``prepare-data`` (2 users of one video,
+    400 frames, 30 + 30-frame windows), so that the CLI rehearsals below
+    train and evaluate on a few windows."""
+    win = str(tmp_path_factory.mktemp("store") / "win.npz")
+    cli.main(["prepare-data", "--out", win, "--n-users", "2", "--n-videos", "1", "--n-frames", "400"])
+    return win
+
+
+def test_cli_train_then_eval_on_cpu(tmp_path, capsys, small_store):
     ck = str(tmp_path / "ck")
-    cli.main(["train", "--preset", "seq2seq-tf-30", "--steps", "3", "--batch-size", "16",
+    cli.main(["train", "--preset", "seq2seq-tf-30", "--data", small_store, "--steps", "3", "--batch-size", "16",
               "--device", "cpu", "--ckpt-dir", ck, "--log-file", str(tmp_path / "log.jsonl")])
     res = _last_json(capsys.readouterr().out)
     assert res["step"] == 3 and np.isfinite(res["loss"]) and "eval_great_circle_deg" in res
-    cli.main(["train", "--preset", "seq2seq-tf-30", "--steps", "4", "--batch-size", "16",
+    cli.main(["train", "--preset", "seq2seq-tf-30", "--data", small_store, "--steps", "4", "--batch-size", "16",
               "--accum", "2", "--device", "cpu", "--ckpt-dir", ck, "--resume"])
     out = capsys.readouterr().out
     assert "resumed from step 3" in out and _last_json(out)["step"] == 4
-    cli.main(["eval", "--preset", "seq2seq-tf-30", "--ckpt-dir", ck, "--device", "cpu", "--json"])
+    cli.main(["eval", "--preset", "seq2seq-tf-30", "--data", small_store, "--ckpt-dir", ck, "--device", "cpu",
+              "--json"])
     ev = _last_json(capsys.readouterr().out)
     assert len(ev["error_by_step_deg"]) == 30 and ev["n_windows"] > 0
 
@@ -457,20 +469,28 @@ def test_cli_train_reads_jax_prepared_data(tmp_path, capsys):
     assert _last_json(capsys.readouterr().out)["step"] == 2
 
 
+FAMILY_ONLY = {"--seq-parallel": "--seq-parallel applies to the transformer family only",
+               "--pipeline-parallel": "--pipeline-parallel applies to the transformer family only"}
+
+
 @pytest.mark.parametrize("flag,match", [
-    (["--data-parallel"], None), (["--seq-parallel", "2"], "parallelism"),
-    (["--pipeline-parallel", "2"], "parallelism"),
-    (["--tb-dir", "tb", "--data-parallel"], None),  # both ported: a world of one, its scalars written
+    (["--data-parallel"], None), (["--seq-parallel", "2"], "--seq-parallel"),
+    (["--pipeline-parallel", "2"], "--pipeline-parallel"),
+    (["--tb-dir", "tb", "--data-parallel"], None),  # a world of one, its scalars written
 ])
-def test_cli_train_unported_flags_raise(flag, match, tmp_path, monkeypatch, capsys):
-    """--seq-parallel and --pipeline-parallel still raise, naming the
-    parallelism slice; --data-parallel (slice P-1) trains, here without a
-    launcher in a world of one, with --tb-dir too."""
+def test_cli_train_parallel_flags_on_seq2seq(flag, match, tmp_path, monkeypatch, capsys, small_store):
+    """On an LSTM preset --seq-parallel and --pipeline-parallel exit with the
+    JAX CLI's family message, the same text for the same argv;
+    --data-parallel trains, here without a launcher in a world of one, with
+    --tb-dir too."""
     monkeypatch.chdir(tmp_path)
-    argv = ["train", "--preset", "seq2seq-tf-30", "--device", "cpu", *flag]
+    argv = ["train", "--preset", "seq2seq-tf-30", "--device", "cpu", "--data", small_store, *flag]
     if match is not None:
-        with pytest.raises(SystemExit, match=match):
+        with pytest.raises(SystemExit, match=FAMILY_ONLY[match]) as ours:
             cli.main(argv)
+        with pytest.raises(SystemExit) as ref:
+            jax_cli.main([a for a in argv if a not in ("--device", "cpu")])
+        assert str(ours.value) == str(ref.value)
         return
     cli.main([*argv, "--steps", "2", "--batch-size", "8"])
     last = _last_json(capsys.readouterr().out)

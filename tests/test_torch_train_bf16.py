@@ -21,6 +21,7 @@ RMS gap, and the port's bf16 at least half the gap from its own f32 in
 both: a version that forgets to round stands a whole gap away.
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import dataclasses
 import json
 

@@ -11,6 +11,7 @@ gradients 2e-4·scale + 1e-7 (tests/test_torch_lstm_train.py); ss_decode
 forward 3e-5, gradients 4e-4·scale + 1e-7 (tests/test_torch_ss_decode.py).
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import jax
 import jax.numpy as jnp
 import numpy as np

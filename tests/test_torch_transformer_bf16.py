@@ -23,6 +23,7 @@ The CUDA kernels' bf16 tiers are held against these plain versions on the
 card (tests/test_torch_kernel_cuda.py, chip_smoke.py).
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import jax
 import jax.numpy as jnp
 import numpy as np

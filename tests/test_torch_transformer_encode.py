@@ -8,6 +8,7 @@ The CUDA kernel itself is held against this plain version on the card
 (tests/test_torch_kernel_cuda.py, chip_smoke.py).
 """
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,7 @@ the same bytes for the same objects (so either side's client talks to either
 side's server), frames round-trip, and every hostile manifest that the JAX
 codec refuses is refused here too, with the same error."""
 
+import _torch_threads  # noqa: F401  (first: sizes torch's thread pool)
 import io
 import json
 import struct
